@@ -22,20 +22,16 @@ import torch
 
 from . import localize_sound_source
 from .utils.config import DEFAULT_CONFIG
+from .utils.device import resolve_device
 
 logger = logging.getLogger("pyaudiolocalization_tpu_torch")
 
 
 def _device(requested):
-    if requested is not None:
-        dev = torch.device(requested)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise SystemExit("--device cuda: no CUDA device is available")
-        return dev
-    if torch.cuda.is_available():
-        return torch.device("cuda")
-    raise SystemExit("no CUDA device is available; pass --device cpu to run "
-                     "the plain PyTorch path on the CPU")
+    try:
+        return resolve_device(requested)
+    except RuntimeError as err:
+        raise SystemExit(f"{err} (--device cpu on the command line)")
 
 
 def main(argv=None) -> int:

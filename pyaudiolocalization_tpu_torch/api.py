@@ -4,12 +4,20 @@
 Ported: ``lag_mode='physical'`` with ``sync_mode='none'``, the Butterworth
 front end, band-limited PHAT, the 'gaussian' TDOA ladder, the permutation
 bootstrap (``analyze_correlation``), the clustered multi-start LM and the
-Gauss-Markov uncertainty.  The JAX package's fused windowed fast path is
-not taken: this slice always runs the full estimation core.  Every other
-mode raises ``NotImplementedError``.
+Gauss-Markov uncertainty.  Every other mode raises ``NotImplementedError``.
 
-The pipeline runs on ``device`` in ``dtype``; on a CUDA device in float32
-it goes through the four hand-written kernels (ops/cuda_fft.py), on the
+Two estimation cores, dispatched as the JAX package dispatches them
+(api.py:717-728 there): the windowed fast core (``_estimation_core_fast``:
+no Butterworth pass, since PHAT cancels |H|^2 and the band mask zeroes the
+rest; kernel K2's lag window and statistics; the collapsed single-peak
+ladder) whenever ``_fast_path_eligible`` holds, else the full core (filter,
+K1's full correlations, the full ladder, the bootstrap).  Eligibility
+depends on the config, the dtype (the kernels take float32) and the
+shapes, never on the device, so the CPU runs the path the card runs.
+
+The pipeline runs on ``device`` (default ``cuda``; without a card the
+caller must pass ``device="cpu"``) in ``dtype``; on a CUDA device in
+float32 it goes through the hand-written kernels (ops/cuda_fft.py), on the
 CPU through their plain PyTorch twins.
 """
 
@@ -26,10 +34,12 @@ from .models import solver as solver_ops
 from .models import tdoa as tdoa_ops
 from .models import uncertainty as uncertainty_ops
 from .models.simulator import simulate_signals_fast
+from .ops import cuda_fft
 from .ops import filters as filter_ops
 from .ops import gccphat
 from .ops.fftutils import fft_length
 from .utils.config import LocalizationConfig, SceneConfig
+from .utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -145,6 +155,30 @@ def _estimation_core(signals: torch.Tensor, mic_positions: torch.Tensor,
         weights = torch.ones(len(pairs_i), dtype=signals.dtype,
                              device=signals.device)
 
+    out.update(_solve(mic_positions, c, generator, pairs_i, pairs_j, td,
+                      weights, loc))
+    return out
+
+
+def _fast_path_eligible(loc: LocalizationConfig, nfft: int, dtype,
+                        fs: float) -> bool:
+    """The JAX package's semantic conditions for the windowed core
+    (api.py:438-459 there): physical single-peak 'gaussian' estimation with
+    no full-correlation consumer downstream, a lag window that covers the
+    max_expected_delay gate, and float32 (the kernels' type).  The TPU's
+    VMEM rules do not apply."""
+    if (loc.lag_mode != "physical" or loc.max_expected_delay is None
+            or loc.solver != "lm" or loc.gcc_weighting != "phat"
+            or loc.analyze_correlation or loc.visualize_correlation
+            or _resolve_threshold(loc) != "gaussian"):
+        return False
+    return (tdoa_ops.window_half(fs, loc.max_expected_delay)
+            <= (nfft // 256) * 128 and dtype == torch.float32)
+
+
+def _solve(mic_positions, c, generator, pairs_i, pairs_j, td, weights,
+           loc: LocalizationConfig) -> Dict[str, torch.Tensor]:
+    """Clustered initial guesses -> bounds -> multi-start LM."""
     guesses, _ = solver_ops.heuristic_initial_guesses(
         mic_positions, pairs_i, pairs_j, td, c, generator,
         clustering_method=loc.clustering_method)
@@ -152,8 +186,39 @@ def _estimation_core(signals: torch.Tensor, mic_positions: torch.Tensor,
     guesses = torch.clamp(guesses, lower[None, :], upper[None, :])
     best = solver_ops.multi_start_lm(guesses, mic_positions, pairs_i,
                                      pairs_j, td, c, weights, lower, upper)
-    out.update(estimated_position=best.x, cost=best.cost, weights=weights,
-               lower=lower, upper=upper, initial_guesses=guesses)
+    return dict(estimated_position=best.x, cost=best.cost, weights=weights,
+                lower=lower, upper=upper, initial_guesses=guesses)
+
+
+def _estimation_core_fast(signals: torch.Tensor, mic_positions: torch.Tensor,
+                          c: float, generator: Optional[torch.Generator], *,
+                          fs: float, pairs_i, pairs_j, nfft: int, wq: int,
+                          loc: LocalizationConfig
+                          ) -> Dict[str, torch.Tensor]:
+    """Windowed core (api.py:337-417 of the JAX package): K2 returns only
+    the lag window and the global statistics of each pair's correlation,
+    and the single-peak ladder runs on the window
+    (models/tdoa.tdoa_single_from_window).  It builds no correlation
+    matrix: ``visualize_correlation``, its only reader, selects the full
+    core."""
+    band = _resolve_phat_band(loc)
+    if loc.filter_method in ("butterworth", "fir") and band is not None:
+        filtered = signals          # PHAT cancels |H|^2 (module docstring)
+    else:
+        filtered = filter_ops.noise_reduction(signals, fs,
+                                              method=loc.filter_method)
+    mask = cuda_fft.band_mask(nfft, band, fs, dtype=signals.dtype,
+                              device=signals.device)
+    win, stats = cuda_fft.gcc_windowed(filtered.contiguous(), pairs_i,
+                                       pairs_j, nfft, wq, mask)
+    measured = tdoa_ops.tdoa_single_from_window(
+        win, stats, wq, nfft, fs, loc.max_expected_delay)
+    td = -measured                       # physical convention (full core)
+    weights = torch.ones(len(pairs_i), dtype=signals.dtype,
+                         device=signals.device)
+    out = {"tdoas": td, "measured_delays": measured}
+    out.update(_solve(mic_positions, c, generator, pairs_i, pairs_j, td,
+                      weights, loc))
     return out
 
 
@@ -171,8 +236,9 @@ def localize_sound_source(config,
     (main.py:126-333): the same config keys and result-dict keys as the JAX
     package's ``localize_sound_source``.
 
-    ``device`` / ``dtype`` place the computation (default: the CPU and
-    torch's default dtype); the kernels run on a CUDA device in float32.
+    ``device`` / ``dtype`` place the computation (default: ``cuda`` and
+    torch's default dtype; without a card, pass ``device="cpu"``); the
+    kernels run on a CUDA device in float32.
     ``generator`` (a ``torch.Generator`` on ``device``) drives every random
     draw — noise sources, bootstrap permutations, k-means seeding; by
     default one is seeded from the scene's ``seed``.  ``signals`` injects
@@ -185,7 +251,7 @@ def localize_sound_source(config,
     loc = scene.localization
     _check_supported(loc, use_simulation, signals, calibration_data,
                      show_plots)
-    dev = torch.device(device) if device is not None else torch.device("cpu")
+    dev = resolve_device(device)
     dt = dtype if dtype is not None else torch.get_default_dtype()
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(scene.seed)
@@ -224,14 +290,20 @@ def localize_sound_source(config,
     n = sigs.shape[-1]
     nfft = _physical_nfft(n, fs, loc.max_expected_delay)
     mics_t = torch.as_tensor(mic_positions, dtype=dt, device=dev)
-    core = _estimation_core(sigs, mics_t, c, generator, fs=fs,
-                            pairs_i=pairs_i, pairs_j=pairs_j, nfft=nfft,
-                            loc=loc)
+    if _fast_path_eligible(loc, nfft, sigs.dtype, fs):
+        core = _estimation_core_fast(
+            sigs, mics_t, c, generator, fs=fs, pairs_i=pairs_i,
+            pairs_j=pairs_j, nfft=nfft,
+            wq=tdoa_ops.window_wq(fs, loc.max_expected_delay, nfft),
+            loc=loc)
+    else:
+        core = _estimation_core(sigs, mics_t, c, generator, fs=fs,
+                                pairs_i=pairs_i, pairs_j=pairs_j, nfft=nfft,
+                                loc=loc)
 
     estimated = core["estimated_position"].double().cpu().numpy()
     cost = float(core["cost"])
     td_np = core["tdoas"].double().cpu().numpy()
-    corr_matrix = core["correlation_matrix"].double().cpu().numpy()
     for (i, j), td in zip(pairs, td_np):
         logger.info("Time difference for mic pair %d-%d: %.6f s", i + 1,
                     j + 1, td)
@@ -268,7 +340,8 @@ def localize_sound_source(config,
         "actual_position": scene.source_position if use_simulation else None,
         "mic_positions": mic_positions,
         "correlation_metrics": correlation_metrics,
-        "correlation_matrix": (corr_matrix if loc.visualize_correlation
+        "correlation_matrix": (core["correlation_matrix"].double().cpu()
+                               .numpy() if loc.visualize_correlation
                                else None),
         "calibration_data": calibration_data,
         "tdoas": td_np,

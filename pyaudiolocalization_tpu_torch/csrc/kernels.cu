@@ -1,5 +1,5 @@
-// Hand-written Hopper kernels of the physical-mode localization path, with
-// a plain C interface for ctypes (ops/cuda_fft.py builds and binds them).
+// Hand-written Hopper kernels of the port, with a plain C interface for
+// ctypes (ops/cuda_fft.py builds and binds them).
 //
 // Each entry point launches on the caller's stream, allocates nothing
 // (the Python wrapper passes outputs and scratch), and returns the value
@@ -7,7 +7,10 @@
 //
 // Shared conventions:
 //   * real rows are packed two to a complex row (z = a + i*b) before a
-//     forward transform; `unpack_bin` recovers either row's spectrum;
+//     forward transform; `unpack_bin` recovers either row's spectrum.
+//     Rows are numbered across the whole batch (row = scene * M + mic), so
+//     a packed row may hold the last mic of one scene and the first of the
+//     next;
 //   * a consumer writes only bins 0..n/2 of a Hermitian spectrum and
 //     mirrors them (`store_packed`), with the imaginary part dropped at DC
 //     and Nyquist exactly as irfft drops it, so two real results share
@@ -15,9 +18,12 @@
 //     (the Hermitian trap noted at ops/pallas_fft.py:1385-1396 of the
 //     TPU package).
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "fft.cuh"
+#include "philox.cuh"
 
 using palt::cmul;
 using palt::fft_rows;
@@ -79,6 +85,64 @@ __device__ __forceinline__ float block_max(float v, float* shared) {
   return shared[0];
 }
 
+// Tree sum over the block: warp shuffles, then one warp over the partials.
+__device__ __forceinline__ float block_sum(float v, float* shared) {
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  __syncthreads();
+  if (lane == 0) shared[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < (int)(blockDim.x >> 5) ? shared[lane] : 0.0f;
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (lane == 0) shared[0] = v;
+  }
+  __syncthreads();
+  return shared[0];
+}
+
+// (value, index) maximum with ties going to the smallest index.
+__device__ __forceinline__ void arg_update(float& best, int& idx, float v,
+                                           int j) {
+  if (v > best || (v == best && j < idx)) {
+    best = v;
+    idx = j;
+  }
+}
+
+__device__ __forceinline__ void block_argmax(float& v, int& idx, float* sv,
+                                             int* si) {
+  for (int off = 16; off > 0; off >>= 1)
+    arg_update(v, idx, __shfl_xor_sync(0xffffffffu, v, off),
+               __shfl_xor_sync(0xffffffffu, idx, off));
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  __syncthreads();
+  if (lane == 0) {
+    sv[warp] = v;
+    si[warp] = idx;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const bool live = lane < (int)(blockDim.x >> 5);
+    v = live ? sv[lane] : -INFINITY;
+    idx = live ? si[lane] : INT_MAX;
+    for (int off = 16; off > 0; off >>= 1)
+      arg_update(v, idx, __shfl_xor_sync(0xffffffffu, v, off),
+                 __shfl_xor_sync(0xffffffffu, idx, off));
+    if (lane == 0) {
+      sv[0] = v;
+      si[0] = idx;
+    }
+  }
+  __syncthreads();
+  v = sv[0];
+  idx = si[0];
+}
+
 // Real rows x (rows, len), row stride ld, zero-padded to n -> complex rows
 // (ceil(rows/2), n) packing rows 2c and 2c+1.
 __global__ void pack_rows(const float* __restrict__ x, int rows, int len,
@@ -112,28 +176,34 @@ __global__ void unpack_half(const float2* __restrict__ z, int n,
     o[k] = unpack_bin(z, r, k, n);
 }
 
-// ---- K1: all-pairs PHAT cross-spectra, two pairs per packed row ----------
+// ---- K1 / K2: PHAT cross-spectra, two pairs per packed row ---------------
 
+// Packed row blockIdx.y = scene * couples + c holds pairs 2c and 2c+1 of
+// that scene; the mics of scene s are spectrum rows s * mics + i.
 __global__ void gcc_cross(const float2* __restrict__ spec,
                           const int* __restrict__ pairs_i,
                           const int* __restrict__ pairs_j, int num_pairs,
+                          int mics, int couples,
                           const float* __restrict__ band, float eps, int n,
                           float2* __restrict__ z) {
-  const int c = blockIdx.y;
+  const int row_c = blockIdx.y;
+  const int scene = row_c / couples;
+  const int c = row_c - scene * couples;
+  const int m0 = scene * mics;
   const int p0 = 2 * c;
   const int p1 = 2 * c + 1;
   const int half = n >> 1;
-  float2* row = z + (size_t)c * (size_t)n;
+  float2* row = z + (size_t)row_c * (size_t)n;
   for (int k = blockIdx.x * blockDim.x + threadIdx.x; k <= half;
        k += gridDim.x * blockDim.x) {
     const float b = band[k];
-    float2 r0 = whiten(unpack_bin(spec, pairs_i[p0], k, n),
-                       unpack_bin(spec, pairs_j[p0], k, n), eps);
+    float2 r0 = whiten(unpack_bin(spec, m0 + pairs_i[p0], k, n),
+                       unpack_bin(spec, m0 + pairs_j[p0], k, n), eps);
     r0 = make_float2(r0.x * b, r0.y * b);
     float2 r1 = make_float2(0.0f, 0.0f);
     if (p1 < num_pairs) {
-      r1 = whiten(unpack_bin(spec, pairs_i[p1], k, n),
-                  unpack_bin(spec, pairs_j[p1], k, n), eps);
+      r1 = whiten(unpack_bin(spec, m0 + pairs_i[p1], k, n),
+                  unpack_bin(spec, m0 + pairs_j[p1], k, n), eps);
       r1 = make_float2(r1.x * b, r1.y * b);
     }
     store_packed(row, k, n, r0, r1);
@@ -154,6 +224,73 @@ __global__ void split_pairs(const float2* __restrict__ z, int num_pairs,
     const float2 v = row[t];
     o0[t] = v.x * scale;
     if (p1 < num_pairs) o1[t] = v.y * scale;
+  }
+}
+
+// K2's epilogue: the last inverse pass fused with the 1/n scale, the write
+// of lags [-w, w) (window sample s holds lag s - w: natural indices n-w..n-1
+// then 0..w-1) and three statistics over the whole correlation: mean |corr|,
+// the maximum and the smallest natural index attaining it.  One block per
+// packed row (pairs 2c, 2c+1 of one scene); the correlation is never
+// written.  The mean is a per-thread serial sum of n/1024 terms followed by
+// a shuffle tree.
+__global__ void last_pass_window(const float2* __restrict__ in,
+                                 const float2* __restrict__ tw, int n,
+                                 int num_pairs, int couples, int w,
+                                 float scale, float* __restrict__ win,
+                                 float* __restrict__ stats) {
+  __shared__ float sv[32];
+  __shared__ int si[32];
+  const int row_c = blockIdx.x;
+  const int scene = row_c / couples;
+  const int c = row_c - scene * couples;
+  const int p0 = 2 * c;
+  const int p1 = 2 * c + 1;
+  const bool two = p1 < num_pairs;
+  const int half = n >> 1;  // final pass: k = i, twiddle tw[i], j = i
+  const float2* x = in + (size_t)row_c * (size_t)n;
+  const size_t q0 = (size_t)scene * num_pairs + p0;
+  float* w0 = win + q0 * (size_t)(2 * w);
+  float* w1 = w0 + 2 * w;
+  float sum0 = 0.0f, sum1 = 0.0f;
+  float max0 = -INFINITY, max1 = -INFINITY;
+  int idx0 = INT_MAX, idx1 = INT_MAX;
+  for (int i = threadIdx.x; i < half; i += blockDim.x) {
+    float2 t = tw[i];
+    t.y = -t.y;
+    const float2 a = x[i];
+    const float2 b = cmul(x[i + half], t);
+    const float lo0 = (a.x + b.x) * scale, lo1 = (a.y + b.y) * scale;
+    const float hi0 = (a.x - b.x) * scale, hi1 = (a.y - b.y) * scale;
+    sum0 += fabsf(lo0) + fabsf(hi0);
+    sum1 += fabsf(lo1) + fabsf(hi1);
+    arg_update(max0, idx0, lo0, i);
+    arg_update(max0, idx0, hi0, i + half);
+    arg_update(max1, idx1, lo1, i);
+    arg_update(max1, idx1, hi1, i + half);
+    if (i < w) {
+      w0[w + i] = lo0;
+      if (two) w1[w + i] = lo1;
+    }
+    if (i >= half - w) {
+      w0[i - half + w] = hi0;
+      if (two) w1[i - half + w] = hi1;
+    }
+  }
+  sum0 = block_sum(sum0, sv);
+  sum1 = block_sum(sum1, sv);
+  block_argmax(max0, idx0, sv, si);
+  block_argmax(max1, idx1, sv, si);
+  if (threadIdx.x == 0) {
+    float* s0 = stats + q0 * 3;
+    s0[0] = sum0 / (float)n;
+    s0[1] = max0;
+    s0[2] = (float)idx0;
+    if (two) {
+      s0[3] = sum1 / (float)n;
+      s0[4] = max1;
+      s0[5] = (float)idx1;
+    }
   }
 }
 
@@ -225,64 +362,140 @@ __device__ __forceinline__ float2 mic_response(const float* tau,
   return make_float2(hr, hi);
 }
 
+// Packed row c mixes mic rows 2c and 2c+1 (row = scene * mics + mic) from
+// their scene's base spectrum (packed base row scene / 2).
 __global__ void render_mix(const float2* __restrict__ zb,
                            const float* __restrict__ tau,
-                           const float* __restrict__ gain, int mics,
-                           int paths, int n, float2* __restrict__ z) {
+                           const float* __restrict__ gain, int rows,
+                           int mics, int paths, int n,
+                           float2* __restrict__ z) {
   const int c = blockIdx.y;
-  const int ma = 2 * c;
-  const int mb = 2 * c + 1;
+  const int ra = 2 * c;
+  const int rb = 2 * c + 1;
   const int half = n >> 1;
   float2* row = z + (size_t)c * (size_t)n;
+  const float* ta = tau + (size_t)ra * paths;
+  const float* ga = gain + (size_t)ra * paths;
   for (int k = blockIdx.x * blockDim.x + threadIdx.x; k <= half;
        k += gridDim.x * blockDim.x) {
-    const float2 s = unpack_bin(zb, 0, k, n);
-    const float2 ya =
-        cmul(s, mic_response(tau + ma * paths, gain + ma * paths, paths, k, n));
+    const float2 ya = cmul(unpack_bin(zb, ra / mics, k, n),
+                           mic_response(ta, ga, paths, k, n));
     float2 yb = make_float2(0.0f, 0.0f);
-    if (mb < mics)
-      yb = cmul(s,
-                mic_response(tau + mb * paths, gain + mb * paths, paths, k, n));
+    if (rb < rows)
+      yb = cmul(unpack_bin(zb, rb / mics, k, n),
+                mic_response(ta + paths, ga + paths, paths, k, n));
     store_packed(row, k, n, ya, yb);
   }
 }
 
-// One block per mic: scale, fade and trim the packed inverse, then the
-// optional finalize (peak-normalize, sign*log1p(|x|/0.8+1e-8),
-// re-normalize; silent rows pass through).  Each thread revisits only the
-// samples it wrote, so the passes need no cross-thread ordering beyond
-// the reductions.
-__global__ void render_finalize(const float2* __restrict__ z, int n,
-                                int out_len, const float* __restrict__ fade,
-                                float scale, int finalize,
-                                float* __restrict__ out) {
+// One block per mic row r = scene * mics + mic: scale, fade and trim the
+// packed inverse, then the optional finalize (peak-normalize,
+// sign*log1p(|x|/0.8+1e-8), re-normalize; silent rows pass through), then
+// the optional measurement noise: sigma = rms * 10^(-snr/20) over the kept
+// samples, times Philox normals keyed by (seed0, seed1 + mic * 0x9E3779B9)
+// (the TPU kernel's _render_postprocess, ops/pallas_fft.py:1788-1834).
+// With packed_out the row is written in place into the packed buffer (the
+// forward input of K5's GCC stage), zero-padded to n; otherwise to
+// out (rows, out_len).  Each thread revisits only the samples it wrote, so
+// the passes need no cross-thread ordering beyond the reductions.
+__global__ void render_finalize(float2* z, int n, int mics, int out_len,
+                                const float* __restrict__ fade, float scale,
+                                int finalize, const float* __restrict__ snr_db,
+                                const int* __restrict__ seeds, float* out,
+                                int packed_out) {
   __shared__ float shared[32];
-  const int m = blockIdx.x;
-  const float2* row = z + (size_t)(m >> 1) * (size_t)n;
-  float* o = out + (size_t)m * (size_t)out_len;
+  const int r = blockIdx.x;
+  const int scene = r / mics;
+  const size_t packed_off = (size_t)(r >> 1) * 2 * (size_t)n + (r & 1);
+  const float* in = reinterpret_cast<const float*>(z) + packed_off;
+  float* o;
+  int stride;
+  if (packed_out) {
+    o = reinterpret_cast<float*>(z) + packed_off;
+    stride = 2;
+  } else {
+    o = out + (size_t)r * (size_t)out_len;
+    stride = 1;
+  }
   float peak = 0.0f;
   for (int t = threadIdx.x; t < out_len; t += blockDim.x) {
-    const float2 v = row[t];
-    const float y = ((m & 1) ? v.y : v.x) * scale * fade[t];
-    o[t] = y;
+    const float y = in[2 * (size_t)t] * scale * fade[t];
+    o[(size_t)t * stride] = y;
     peak = fmaxf(peak, fabsf(y));
   }
-  if (!finalize) return;
-  peak = block_max(peak, shared);
-  float cpeak = 0.0f;
-  for (int t = threadIdx.x; t < out_len; t += blockDim.x) {
-    float y = o[t];
-    if (peak != 0.0f) y = y / peak;
-    const float sgn = (y > 0.0f) - (y < 0.0f);
-    const float comp = sgn * log1pf(fabsf(y) / 0.8f + 1e-8f);
-    o[t] = comp;
-    cpeak = fmaxf(cpeak, fabsf(comp));
+  if (packed_out) {
+    for (int t = out_len + threadIdx.x; t < n; t += blockDim.x)
+      o[(size_t)t * stride] = 0.0f;
   }
-  cpeak = block_max(cpeak, shared);
-  if (cpeak > 0.0f) {
+  if (finalize) {
+    peak = block_max(peak, shared);
+    float cpeak = 0.0f;
+    for (int t = threadIdx.x; t < out_len; t += blockDim.x) {
+      float y = o[(size_t)t * stride];
+      if (peak != 0.0f) y = y / peak;
+      const float sgn = (y > 0.0f) - (y < 0.0f);
+      const float comp = sgn * log1pf(fabsf(y) / 0.8f + 1e-8f);
+      o[(size_t)t * stride] = comp;
+      cpeak = fmaxf(cpeak, fabsf(comp));
+    }
+    cpeak = block_max(cpeak, shared);
+    if (cpeak > 0.0f) {
+      for (int t = threadIdx.x; t < out_len; t += blockDim.x)
+        o[(size_t)t * stride] = o[(size_t)t * stride] / cpeak;
+    }
+  }
+  if (snr_db != nullptr) {
+    float ss = 0.0f;
+    for (int t = threadIdx.x; t < out_len; t += blockDim.x) {
+      const float y = o[(size_t)t * stride];
+      ss += y * y;
+    }
+    ss = block_sum(ss, shared);
+    const float rms = sqrtf(ss / (float)out_len);
+    const float sigma = rms * expf(-snr_db[scene] * 0.11512925464970229f);
+    const uint32_t k0 = (uint32_t)seeds[2 * scene];
+    const uint32_t k1 = (uint32_t)seeds[2 * scene + 1] +
+                        (uint32_t)(r - scene * mics) * palt::kPhiloxW0;
     for (int t = threadIdx.x; t < out_len; t += blockDim.x)
-      o[t] = o[t] / cpeak;
+      o[(size_t)t * stride] += sigma * palt::philox_normal((uint32_t)t, k0,
+                                                           k1);
   }
+}
+
+// ---- stages shared by the entry points -----------------------------------
+
+// Base rows (scenes, len) -> packed inverse of the per-mic mixes (rows
+// scene * mics + mic, unscaled), in z0 or z1 (the returned pointer).
+float2* render_stage(const float* base, int scenes, int len,
+                     const float* tau, const float* gain, int mics,
+                     int paths, int n, const float2* tw, float2* zb0,
+                     float2* zb1, float2* z0, float2* z1, cudaStream_t s) {
+  const int packed_b = (scenes + 1) / 2;
+  const int rows = scenes * mics;
+  const int couples = (rows + 1) / 2;
+  pack_rows<<<dim3(palt::pass_blocks(n), packed_b), kThreads, 0, s>>>(
+      base, scenes, len, len, n, zb0);
+  float2* spec = fft_rows(zb0, zb1, tw, n, packed_b, 0, log2_int(n), s);
+  render_mix<<<dim3(bin_blocks(n), couples), kThreads, 0, s>>>(
+      spec, tau, gain, rows, mics, paths, n, z0);
+  return fft_rows(z0, z1, tw, n, couples, 1, log2_int(n), s);
+}
+
+// Forward spectra of rows scene * mics + mic (packed) -> win / stats of
+// every pair of every scene (K2's back half).
+void window_stage(const float2* spec, int scenes, int mics,
+                  const int* pairs_i, const int* pairs_j, int num_pairs,
+                  const float* band, float eps, int wq, int n,
+                  const float2* tw, float2* c0, float2* c1, float* win,
+                  float* stats, cudaStream_t s) {
+  const int couples = (num_pairs + 1) / 2;
+  const int rows = scenes * couples;
+  gcc_cross<<<dim3(bin_blocks(n), rows), kThreads, 0, s>>>(
+      spec, pairs_i, pairs_j, num_pairs, mics, couples, band, eps, n, c0);
+  float2* part = fft_rows(c0, c1, tw, n, rows, 1, log2_int(n) - 1, s);
+  last_pass_window<<<rows, kRowThreads, 0, s>>>(part, tw, n, num_pairs,
+                                                couples, wq * 128,
+                                                1.0f / (float)n, win, stats);
 }
 
 }  // namespace
@@ -325,12 +538,33 @@ int palt_gcc_all_pairs(const float* x, int mics, int len, int n,
   float2* spec = fft_rows(spec0, spec1, tw, n, packed, 0, log2_int(n), s);
   PALT_CHECK();
   gcc_cross<<<dim3(bin_blocks(n), couples), kThreads, 0, s>>>(
-      spec, pairs_i, pairs_j, num_pairs, band, eps, n, z0);
+      spec, pairs_i, pairs_j, num_pairs, mics, couples, band, eps, n, z0);
   PALT_CHECK();
   float2* corr = fft_rows(z0, z1, tw, n, couples, 1, log2_int(n), s);
   PALT_CHECK();
   split_pairs<<<dim3(palt::pass_blocks(n), couples), kThreads, 0, s>>>(
       corr, num_pairs, n, 1.0f / (float)n, out);
+  PALT_CHECK();
+  return 0;
+}
+
+// K2: x (scenes, mics, len) -> win (scenes, num_pairs, 2*wq*128) lag-centred
+// correlation windows and stats (scenes, num_pairs, 3).
+int palt_gcc_windowed(const float* x, int scenes, int mics, int len, int n,
+                      const int* pairs_i, const int* pairs_j, int num_pairs,
+                      const float* band, float eps, int wq, const float2* tw,
+                      float2* spec0, float2* spec1, float2* c0, float2* c1,
+                      float* win, float* stats, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int rows = scenes * mics;
+  const int packed = (rows + 1) / 2;
+  pack_rows<<<dim3(palt::pass_blocks(n), packed), kThreads, 0, s>>>(
+      x, rows, len, len, n, spec0);
+  PALT_CHECK();
+  float2* spec = fft_rows(spec0, spec1, tw, n, packed, 0, log2_int(n), s);
+  PALT_CHECK();
+  window_stage(spec, scenes, mics, pairs_i, pairs_j, num_pairs, band, eps,
+               wq, n, tw, c0, c1, win, stats, s);
   PALT_CHECK();
   return 0;
 }
@@ -360,28 +594,54 @@ int palt_bootstrap_peaks(const float2* s1, const float* x, int rows, int len,
   return 0;
 }
 
-// K3: base (len,) real, tau/gain (mics, paths) in samples / linear gain ->
-// out (mics, out_len): circular multipath render at length n, scaled by
-// 1/n and fade, optionally finalized per mic.
-int palt_delay_sum(const float* base, int len, const float* tau,
+// K3: base (scenes, len) real, tau/gain (scenes, mics, paths) in samples /
+// linear gain -> out (scenes, mics, out_len): circular multipath render at
+// length n, scaled by 1/n and fade, optionally finalized per mic, and with
+// measurement noise at snr_db (scenes,) from seeds (scenes, 2) unless
+// snr_db is NULL.
+int palt_delay_sum(const float* base, int scenes, int len, const float* tau,
                    const float* gain, int mics, int paths, int n, int out_len,
-                   const float* fade, int finalize, const float2* tw,
-                   float2* zb0, float2* zb1, float2* z0, float2* z1,
-                   float* out, void* stream) {
+                   const float* fade, int finalize, const float* snr_db,
+                   const int* seeds, const float2* tw, float2* zb0,
+                   float2* zb1, float2* z0, float2* z1, float* out,
+                   void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int couples = (mics + 1) / 2;
-  pack_rows<<<dim3(palt::pass_blocks(n), 1), kThreads, 0, s>>>(
-      base, 1, len, len, n, zb0);
+  float2* sig = render_stage(base, scenes, len, tau, gain, mics, paths, n,
+                             tw, zb0, zb1, z0, z1, s);
   PALT_CHECK();
-  float2* spec = fft_rows(zb0, zb1, tw, n, 1, 0, log2_int(n), s);
+  render_finalize<<<scenes * mics, kRowThreads, 0, s>>>(
+      sig, n, mics, out_len, fade, 1.0f / (float)n, finalize, snr_db, seeds,
+      out, 0);
   PALT_CHECK();
-  render_mix<<<dim3(bin_blocks(n), couples), kThreads, 0, s>>>(
-      spec, tau, gain, mics, paths, n, z0);
+  return 0;
+}
+
+// K5: the whole scene.  K3's render with finalize (and noise) for every
+// scene, each finished signal written in place as the packed forward input
+// of K2's GCC, then K2's transforms and windowed epilogue.  Outputs as K2.
+int palt_scene_windowed(const float* base, int scenes, int len,
+                        const float* tau, const float* gain, int mics,
+                        int paths, int n, int out_len, const float* fade,
+                        const float* snr_db, const int* seeds,
+                        const int* pairs_i, const int* pairs_j, int num_pairs,
+                        const float* band, float eps, int wq,
+                        const float2* tw, float2* zb0, float2* zb1,
+                        float2* z0, float2* z1, float2* c0, float2* c1,
+                        float* win, float* stats, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  float2* sig = render_stage(base, scenes, len, tau, gain, mics, paths, n,
+                             tw, zb0, zb1, z0, z1, s);
   PALT_CHECK();
-  float2* sig = fft_rows(z0, z1, tw, n, couples, 1, log2_int(n), s);
+  render_finalize<<<scenes * mics, kRowThreads, 0, s>>>(
+      sig, n, mics, out_len, fade, 1.0f / (float)n, 1, snr_db, seeds,
+      nullptr, 1);
   PALT_CHECK();
-  render_finalize<<<mics, kRowThreads, 0, s>>>(sig, n, out_len, fade,
-                                               1.0f / (float)n, finalize, out);
+  float2* other = sig == z0 ? z1 : z0;
+  const int packed = (scenes * mics + 1) / 2;
+  float2* spec = fft_rows(sig, other, tw, n, packed, 0, log2_int(n), s);
+  PALT_CHECK();
+  window_stage(spec, scenes, mics, pairs_i, pairs_j, num_pairs, band, eps,
+               wq, n, tw, c0, c1, win, stats, s);
   PALT_CHECK();
   return 0;
 }

@@ -91,9 +91,9 @@ def reflection_tree(num_planes: int, max_order: int) -> ReflectionTree:
 
 
 class ImageSources(NamedTuple):
-    positions: torch.Tensor     # (I, 3) image-source positions (dense tree)
+    positions: torch.Tensor     # (..., I, 3) image-source positions
     material_ids: torch.Tensor  # (I,) material id per node (its plane's)
-    accepted: torch.Tensor      # (I,) bool: survives dedupe + attenuation
+    accepted: torch.Tensor      # (..., I) bool: survives dedupe + attenuation
     orders: torch.Tensor        # (I,) reflection order
 
 
@@ -109,13 +109,18 @@ def image_sources(source: torch.Tensor,
                   round_decimals: int = 6) -> ImageSources:
     """Image sources matching generate_image_sources_iterative
     (utils.py:67-106) node for node: the dense tree with an acceptance mask;
-    ``positions[accepted]`` in node order is the reference's list."""
+    ``positions[accepted]`` in node order is the reference's list.
+    ``source`` (..., 3) and ``mic_positions`` (..., M, 3) may carry a
+    leading scene axis; positions (..., I, 3) and ``accepted`` (..., I)
+    then carry it too (material ids and orders are the tree's, (I,))."""
     dev, dt = source.device, source.dtype
+    lead = source.shape[:-1]
     num_planes = int(plane_coeffs.shape[0])
     if num_planes == 0 or max_order == 0:
         zi = torch.zeros(0, dtype=torch.long, device=dev)
-        return ImageSources(torch.zeros((0, 3), dtype=dt, device=dev), zi,
-                            torch.zeros(0, dtype=torch.bool, device=dev), zi)
+        return ImageSources(torch.zeros(lead + (0, 3), dtype=dt, device=dev),
+                            zi, torch.zeros(lead + (0,), dtype=torch.bool,
+                                            device=dev), zi)
 
     tree = reflection_tree(num_planes, max_order)
     num_nodes = len(tree.node_plane)
@@ -129,37 +134,41 @@ def image_sources(source: torch.Tensor,
         base = source if parent < 0 else rows[parent]
         rows.append(reflect_point_across_plane(
             base, plane_coeffs[int(tree.node_plane[i])]))
-    positions = torch.stack(rows)
+    positions = torch.stack(rows, -2)                          # (..., I, 3)
 
     material_ids = plane_material_ids.long()[node_plane]
 
     # Acceptance: mean over mics > thr AND min > thr/2 (utils.py:97-99),
     # in log space (stable logsumexp mean).
-    dists = torch.linalg.norm(positions[:, None, :] - mic_positions[None],
-                              dim=-1)                          # (I, M)
+    dists = torch.linalg.norm(positions[..., :, None, :]
+                              - mic_positions[..., None, :, :],
+                              dim=-1)                          # (..., I, M)
     la = log_attenuation(dists, material_ids[:, None], frequency,
                          absorption_table, freq_table)
     if absorption_threshold > 0:
         log_thr = float(np.log(absorption_threshold))
         k = torch.amax(la, -1)
-        log_mean = k + torch.log(torch.mean(torch.exp(la - k[:, None]), -1))
+        log_mean = k + torch.log(torch.mean(torch.exp(la - k[..., None]),
+                                            -1))
         att_ok = (log_mean > log_thr) & (
             torch.amin(la, -1) > float(np.log(absorption_threshold / 2.0)))
     else:  # a non-positive threshold accepts everything
-        att_ok = torch.ones(num_nodes, dtype=torch.bool, device=dev)
+        att_ok = torch.ones(lead + (num_nodes,), dtype=torch.bool,
+                            device=dev)
 
     # Sequential BFS-order dedupe against earlier ACCEPTED nodes and the
     # source, by equality of rounded coordinates (utils.py:82,90-91); a node
     # is considered only if its parent was accepted.
     q = torch.round(positions, decimals=round_decimals)
     q_src = torch.round(source, decimals=round_decimals)
-    same_as_src = torch.all(q == q_src[None, :], -1)
-    accepted = torch.zeros(num_nodes, dtype=torch.bool, device=dev)
+    same_as_src = torch.all(q == q_src[..., None, :], -1)      # (..., I)
+    accepted = torch.zeros(lead + (num_nodes,), dtype=torch.bool, device=dev)
     for i in range(num_nodes):  # entries >= i are still False here
         parent = int(tree.node_parent[i])
-        parent_ok = True if parent < 0 else accepted[parent]
-        dup = torch.any(accepted & torch.all(q == q[i], -1)) | same_as_src[i]
-        accepted[i] = parent_ok & ~dup & att_ok[i]
+        parent_ok = True if parent < 0 else accepted[..., parent]
+        dup = torch.any(accepted & torch.all(q == q[..., i:i + 1, :], -1),
+                        -1) | same_as_src[..., i]
+        accepted[..., i] = parent_ok & ~dup & att_ok[..., i]
     return ImageSources(positions, material_ids, accepted,
                         torch.as_tensor(tree.node_order, dtype=torch.long,
                                         device=dev))

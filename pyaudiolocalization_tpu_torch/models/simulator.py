@@ -3,9 +3,10 @@ models/simulator.py; reference: main.py:66-124).
 
 Ported: the physical-mode path, ``simulate_signals_fast``, which renders at
 a static power-of-two length from a host-side delay budget through
-``render_scene(pad_mode="pow2")`` and kernel K3 (ops/cuda_fft.delay_sum).
-The reference-parity ``simulate_signals``, per-bin absorption, in-render
-noise and the moving-source render belong to later slices.
+``render_scene(pad_mode="pow2")`` and kernel K3 (ops/cuda_fft.delay_sum),
+with in-render measurement noise and a leading scene axis for the sweep.
+The reference-parity ``simulate_signals``, per-bin absorption and the
+moving-source render belong to later slices.
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ _F64_LOG_TINY = -708.0
 
 
 class ScenePaths(NamedTuple):
-    delays: torch.Tensor  # (M, 1 + I) seconds; column 0 = direct path
-    gains: torch.Tensor   # (M, 1 + I) attenuation * acceptance mask
+    delays: torch.Tensor  # (..., M, 1 + I) seconds; column 0 = direct path
+    gains: torch.Tensor   # (..., M, 1 + I) attenuation * acceptance mask
 
 
 def scene_paths(source: torch.Tensor, mic_positions: torch.Tensor, c,
@@ -42,24 +43,28 @@ def scene_paths(source: torch.Tensor, mic_positions: torch.Tensor, c,
     material).  Gains are computed in log space and rescaled per mic so the
     strongest path has gain 1 (identical after the per-mic normalization,
     and exact in float32 where the reference's ~exp(-90) attenuations
-    underflow)."""
-    d_direct = torch.linalg.norm(source[None, :] - mic_positions, dim=-1)
+    underflow).  ``source`` (..., 3) and ``mic_positions`` (..., M, 3)
+    may carry a leading scene axis, with images from ``image_sources`` of
+    the same scenes."""
+    d_direct = torch.linalg.norm(source[..., None, :] - mic_positions,
+                                 dim=-1)
     la_direct = acoustics.log_attenuation(d_direct, AIR_ID, frequency,
                                           absorption_table, freq_table)
-    if images.positions.shape[0] == 0:
-        la_all = la_direct[:, None]
-        delays = d_direct[:, None] / c
+    if images.positions.shape[-2] == 0:
+        la_all = la_direct[..., None]
+        delays = d_direct[..., None] / c
     else:
         d_img = torch.linalg.norm(
-            images.positions[None, :, :] - mic_positions[:, None, :], dim=-1)
+            images.positions[..., None, :, :]
+            - mic_positions[..., :, None, :], dim=-1)            # (..., M, I)
         la_img = acoustics.log_attenuation(
-            d_img, images.material_ids[None, :], frequency,
-            absorption_table, freq_table)
-        la_img = torch.where(images.accepted[None, :], la_img,
+            d_img, images.material_ids, frequency, absorption_table,
+            freq_table)
+        la_img = torch.where(images.accepted[..., None, :], la_img,
                              torch.full_like(la_img, -np.inf))
-        la_all = torch.cat([la_direct[:, None], la_img], 1)      # (M, 1+I)
-        delays = torch.cat([d_direct[:, None], d_img], 1) / c
-    ref = torch.amax(la_all, dim=1, keepdim=True)                # (M, 1)
+        la_all = torch.cat([la_direct[..., None], la_img], -1)  # (..., M, 1+I)
+        delays = torch.cat([d_direct[..., None], d_img], -1) / c
+    ref = torch.amax(la_all, dim=-1, keepdim=True)              # (..., M, 1)
     alive = ref > _F64_LOG_TINY
     shifted = la_all - torch.where(alive, ref, torch.zeros_like(ref))
     gains = torch.where(torch.isfinite(la_all), torch.exp(shifted),
@@ -71,23 +76,34 @@ def scene_paths(source: torch.Tensor, mic_positions: torch.Tensor, c,
 def render_scene(base_signal: torch.Tensor, paths_delays: torch.Tensor,
                  paths_gains: torch.Tensor, fs: float, total_samples: int,
                  out_samples: int, pad_mode: str = "pow2",
-                 finalize: bool = True) -> torch.Tensor:
-    """Render (M, out_samples) mic signals: pad base to total_samples
-    (main.py:102-103), delay-and-sum all paths circularly at
+                 finalize: bool = True,
+                 snr_db: Optional[torch.Tensor] = None,
+                 noise_seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Render (..., M, out_samples) mic signals: pad base (..., N) to
+    total_samples (main.py:102-103), delay-and-sum all paths circularly at
     next_pow2(total_samples), fade, trim (main.py:119-120), and normalize +
-    compress per mic (main.py:121-122) — all in kernel K3."""
+    compress per mic (main.py:121-122) — all in kernel K3.  ``snr_db``
+    ((...,) dB) with ``noise_seeds`` ((..., 2) int32) adds white
+    measurement noise at that per-mic SNR after finalization, drawn from
+    the seeds' Philox streams (ops/noise.py)."""
     if pad_mode != "pow2":
         raise NotImplementedError(
             f"render_scene pad_mode={pad_mode!r} is not ported yet (the "
             "exact-length render belongs to the parity-mode slice)")
+    if snr_db is not None and noise_seeds is None:
+        raise ValueError("snr_db requires noise_seeds")
     dt, dev = base_signal.dtype, base_signal.device
-    padded = torch.zeros(total_samples, dtype=dt, device=dev)
-    padded[:base_signal.shape[0]] = base_signal
+    lead = base_signal.shape[:-1]
+    padded = torch.zeros(lead + (total_samples,), dtype=dt, device=dev)
+    padded[..., :base_signal.shape[-1]] = base_signal
     fade = fade_window(total_samples, dtype=dt, device=dev)[:out_samples]
     tau = (paths_delays * fs).to(dt).contiguous()
+    if snr_db is not None:
+        snr_db = torch.as_tensor(snr_db, dtype=dt, device=dev)
     return cuda_fft.delay_sum(padded, tau, paths_gains.to(dt).contiguous(),
                               next_pow2(total_samples), out_samples,
-                              fade.contiguous(), finalize)
+                              fade.contiguous(), finalize, snr_db,
+                              noise_seeds)
 
 
 def static_delay_budget(source_pos, mic_positions, plane_coeffs,

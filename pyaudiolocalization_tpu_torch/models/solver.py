@@ -4,8 +4,12 @@ Levenberg-Marquardt (counterpart of the JAX package's models/solver.py;
 reference: utils.py:304-405, main.py:261-274).
 
 Restarts are a batch dimension: every guess iterates in lock-step and a
-finished restart keeps its state.  The differential-evolution fallback,
-the robust LM and L-BFGS-B belong to later slices.
+finished restart keeps its state.  Scenes are another: mic positions
+(B, M, 3) with TDOAs (B, P) solve B independent problems in the same
+lock-step loop (the JAX package's ``vmap`` over scenes written out), which
+stops when every start of every scene is done; unbatched calls run the
+same code with B = 1.  The differential-evolution fallback, the robust LM
+and L-BFGS-B belong to later slices.
 
 Sign convention: r = (||x - mic_j|| - ||x - mic_i||) - c * td
 (utils.py:398-404); physical mode feeds td = -(peak lag)/fs.
@@ -54,18 +58,19 @@ def pair_guesses(mic_positions: torch.Tensor, pairs_i, pairs_j,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Hyperbola-midpoint guess per pair (utils.py:321-334): from the pair
     midpoint, step (c|td|)/2 along -(mic_j - mic_i) when td > 0, else +.
-    Returns (guesses (P, 3), valid); coincident mics are masked."""
-    mi = mic_positions[_index(pairs_i, mic_positions.device)]
-    mj = mic_positions[_index(pairs_j, mic_positions.device)]
+    mics (..., M, 3), tdoas (..., P) -> (guesses (..., P, 3), valid
+    (..., P)); coincident mics are masked."""
+    mi = mic_positions[..., _index(pairs_i, mic_positions.device), :]
+    mj = mic_positions[..., _index(pairs_j, mic_positions.device), :]
     direction = mj - mi
     norm = torch.linalg.norm(direction, dim=-1)
     valid = norm > 0
     unit = direction / torch.where(valid, norm,
-                                   torch.ones_like(norm))[:, None]
+                                   torch.ones_like(norm))[..., None]
     midpoint = (mi + mj) / 2.0
     offset = (c * torch.abs(tdoas)) / 2.0
     sign = torch.where(tdoas > 0, -1.0, 1.0).to(tdoas.dtype)
-    return midpoint + sign[:, None] * offset[:, None] * unit, valid
+    return midpoint + sign[..., None] * offset[..., None] * unit, valid
 
 
 def heuristic_initial_guesses(mic_positions: torch.Tensor, pairs_i, pairs_j,
@@ -78,50 +83,61 @@ def heuristic_initial_guesses(mic_positions: torch.Tensor, pairs_i, pairs_j,
     """Clustered initial guesses + the mic centroid
     (heuristic_initialization_adaptive, utils.py:304-362): k-means for every
     k = 1..max_clusters, the silhouette-selected k (strict improvement,
-    utils.py:273-302), then the centroid unless already present.  Returns
-    (guesses (max_clusters + 1, 3), valid); invalid rows hold the centroid."""
+    utils.py:273-302), then the centroid unless already present.  mics
+    (..., M, 3), tdoas (..., P), seed_indices (..., max_clusters) ->
+    (guesses (..., max_clusters + 1, 3), valid); invalid rows hold the
+    centroid."""
     if clustering_method != "kmeans":
         raise NotImplementedError(
             f"clustering_method={clustering_method!r} is not ported yet; "
             "DBSCAN follows in a later slice")
+    if mic_positions.dim() == 2:
+        g, v = heuristic_initial_guesses(
+            mic_positions[None], pairs_i, pairs_j, tdoas[None], c, generator,
+            clustering_method, max_clusters,
+            None if seed_indices is None
+            else torch.as_tensor(seed_indices)[None])
+        return g[0], v[0]
     dev = mic_positions.device
-    centroid = torch.mean(mic_positions, 0)
+    batch = mic_positions.shape[0]
+    rows = torch.arange(batch, device=dev)
+    centroid = torch.mean(mic_positions, 1)                      # (B, 3)
     points, pvalid = pair_guesses(mic_positions, pairs_i, pairs_j, tdoas, c)
-    n = points.shape[0]
-    n_valid = torch.sum(pvalid)
+    n = points.shape[1]
+    n_valid = torch.sum(pvalid, 1)
     km = cluster_ops.kmeans_multi(points, max_clusters, generator, iters=10,
                                   valid=pvalid, seed_indices=seed_indices)
     scores = torch.stack([
-        cluster_ops.silhouette_score(points, km.labels[v], max_clusters,
+        cluster_ops.silhouette_score(points, km.labels[:, v], max_clusters,
                                      pvalid)
-        for v in range(max_clusters)])
-    best_k = torch.tensor(1, device=dev)
-    best_score = torch.tensor(-1.0, dtype=points.dtype, device=dev)
+        for v in range(max_clusters)], 1)                        # (B, K)
+    best_k = torch.ones(batch, dtype=torch.long, device=dev)
+    best_score = torch.full((batch,), -1.0, dtype=points.dtype, device=dev)
     for k in range(2, min(max_clusters, n) + 1):
-        better = (k <= n_valid) & (scores[k - 1] > best_score)
-        best_k = torch.where(better, torch.tensor(k, device=dev), best_k)
-        best_score = torch.where(better, scores[k - 1], best_score)
-    num = torch.where(n_valid < 2, torch.tensor(1, device=dev), best_k)
+        better = (k <= n_valid) & (scores[:, k - 1] > best_score)
+        best_k = torch.where(better, k, best_k)
+        best_score = torch.where(better, scores[:, k - 1], best_score)
+    num = torch.where(n_valid < 2, 1, best_k)
     k_cols = torch.arange(max_clusters, device=dev)
     stacked_valid = k_cols[None, :] <= k_cols[:, None]
-    stacked = torch.where(stacked_valid[:, :, None], km.centers,
-                          centroid[None, None, :])
+    stacked = torch.where(stacked_valid[None, :, :, None], km.centers,
+                          centroid[:, None, None, :])
     sel = torch.clamp(num - 1, 0, max_clusters - 1)
-    guesses = stacked[sel]
-    gvalid = stacked_valid[sel]
+    guesses = stacked[rows, sel]                                 # (B, K, 3)
+    gvalid = stacked_valid[sel]                                  # (B, K)
 
     # No valid pair guesses at all -> centroid only (utils.py:316-317).
-    any_pairs = torch.any(pvalid)
-    guesses = torch.where(any_pairs, guesses, centroid.expand_as(guesses))
-    gvalid = torch.where(any_pairs, gvalid,
-                         torch.arange(guesses.shape[0], device=dev) < 1)
+    any_pairs = torch.any(pvalid, 1)
+    guesses = torch.where(any_pairs[:, None, None], guesses,
+                          centroid[:, None, :].expand_as(guesses))
+    gvalid = torch.where(any_pairs[:, None], gvalid, (k_cols < 1)[None])
 
     # Always append the centroid unless already present (utils.py:358-361).
     present = torch.any(gvalid & torch.all(
-        torch.abs(guesses - centroid[None, :]) <= 1e-6, -1))
-    guesses = torch.cat([guesses, centroid[None, :]], 0)
-    gvalid = torch.cat([gvalid, ~present[None]], 0)
-    guesses = torch.where(gvalid[:, None], guesses, centroid[None, :])
+        torch.abs(guesses - centroid[:, None, :]) <= 1e-6, -1), 1)
+    guesses = torch.cat([guesses, centroid[:, None, :]], 1)
+    gvalid = torch.cat([gvalid, ~present[:, None]], 1)
+    guesses = torch.where(gvalid[..., None], guesses, centroid[:, None, :])
     return guesses, gvalid
 
 
@@ -129,11 +145,12 @@ def dynamic_bounds(mic_positions: torch.Tensor, tdoas: torch.Tensor, c,
                    buffer: float = 5.0
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Extended per-axis box (dynamic_bounds_extended, utils.py:364-382):
-    mic min/max -/+ (buffer + max(75th pct of c|td|, 1.0))."""
-    margin_extra = torch.quantile(c * torch.abs(tdoas), 0.75)
-    margin = buffer + torch.clamp(margin_extra, min=1.0)
-    lower = torch.amin(mic_positions, 0) - margin
-    upper = torch.amax(mic_positions, 0) + margin
+    mic min/max -/+ (buffer + max(75th pct of c|td|, 1.0)); the percentile
+    runs over the pair axis, mics (..., M, 3), tdoas (..., P) -> (..., 3)."""
+    margin_extra = torch.quantile(c * torch.abs(tdoas), 0.75, dim=-1)
+    margin = (buffer + torch.clamp(margin_extra, min=1.0))[..., None]
+    lower = torch.amin(mic_positions, -2) - margin
+    upper = torch.amax(mic_positions, -2) + margin
     return lower, upper
 
 
@@ -213,10 +230,20 @@ def multi_start_lm(guesses: torch.Tensor, mic_positions, pairs_i, pairs_j,
                    tdoas, c, weights, lower, upper,
                    iters: int = 60) -> LMResult:
     """All restarts at once + argmin-cost selection (the reference's restart
-    loop, main.py:261-274); a NaN cost loses."""
+    loop, main.py:261-274); a NaN cost loses.  guesses (G, 3) with mics
+    (M, 3), or (B, G, 3) with mics (B, M, 3), tdoas / weights (B, P) and
+    bounds (B, 3) -> x (..., 3), cost (...)."""
+    batched = guesses.dim() == 3
+    if batched:
+        mic_positions, tdoas, weights, lower, upper = (
+            t[:, None] for t in (mic_positions, tdoas, weights, lower,
+                                 upper))
     res = lm_solve(guesses, mic_positions, pairs_i, pairs_j, tdoas, c,
                    weights, lower, upper, iters)
     cost = torch.where(torch.isnan(res.cost),
                        torch.full_like(res.cost, float("inf")), res.cost)
-    best = torch.argmin(cost)
-    return LMResult(res.x[best], cost[best])
+    best = torch.argmin(cost, -1)
+    if not batched:
+        return LMResult(res.x[best], cost[best])
+    rows = torch.arange(guesses.shape[0], device=guesses.device)
+    return LMResult(res.x[rows, best], cost[rows, best])

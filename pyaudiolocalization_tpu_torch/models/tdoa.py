@@ -3,9 +3,10 @@ null (counterpart of the JAX package's models/tdoa.py; reference:
 utils.py:121-271).
 
 Ported: the physical-lag ladder with the 'gaussian' threshold and a
-max_expected_delay window (the physical path's single-peak case), the
-correlation metrics, and the permutation bootstrap through kernels K4a/K4b
-(ops/cuda_fft.fft_real + bootstrap_peaks).
+max_expected_delay window (the physical path's single-peak case), its
+collapsed form on a lag window (``tdoa_single_from_window``, fed by kernels
+K2 / K5), the correlation metrics, and the permutation bootstrap through
+kernels K4a/K4b (ops/cuda_fft.fft_real + bootstrap_peaks).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ops import cuda_fft
 from ..ops import gccphat
@@ -103,6 +105,68 @@ def time_delays_from_corr(corr: torch.Tensor, n1: int, n2: int, fs: float,
     delays = torch.where(fb, am_delay[..., None], delays)
     valid = torch.where(argmax_fallback, slot, valid)
     return TdoaResult(delays, valid, corr, time_lags)
+
+
+def window_half(fs: float, max_expected_delay: float) -> int:
+    """Lags the windowed ladder consults on each side of lag 0: the
+    max_expected_delay gate plus its 8 x 1 ms dilation margin."""
+    return int(np.ceil(max_expected_delay * fs)) + 8 * max(int(fs * 0.001),
+                                                           1)
+
+
+def window_wq(fs: float, max_expected_delay: float, nfft: int) -> int:
+    """Half-width of K2's lag window in units of 128 lags: covers
+    ``window_half`` where nfft allows, capped at nfft/256 (the JAX
+    package's ``_fast_window_wq`` and ``_tdoa_window_wq``)."""
+    half = window_half(fs, max_expected_delay)
+    return min(max(-(-half // 128) + 1, 1), nfft // 256)
+
+
+def tdoa_single_from_window(win: torch.Tensor, stats: torch.Tensor,
+                            wq: int, nfft: int, fs: float,
+                            max_expected_delay: float,
+                            threshold_multiplier: float = 1.0
+                            ) -> torch.Tensor:
+    """Single-peak physical-lag TDOA from a lag-centred correlation window
+    plus global statistics (the outputs of ops/cuda_fft.gcc_windowed and
+    scene_windowed): peak-lag delays in seconds, shape win.shape[:-1] (the
+    sign convention of ``TdoaResult.delays``: td = -delay).
+
+    Matches ``time_delays_from_corr(num_peaks=1, threshold_method=
+    'gaussian', max_expected_delay=...)`` whenever the winning peak lies in
+    the window, which its sizing guarantees: the candidate is the tallest
+    in-window strict local maximum above 0.84535 * mean|corr| that no
+    taller local maximum within the 1 ms peak spacing dominates; with no
+    candidate, the global argmax (natural index nfft/2 and above decode as
+    negative lags).  Suppression chains are approximated as in the JAX
+    package (models/tdoa.py:188-253 there)."""
+    if threshold_multiplier > 1.0 / 0.84535:
+        raise ValueError(
+            "tdoa_single_from_window requires threshold_multiplier <= "
+            "1/0.84535: larger multipliers put the primary threshold above "
+            "the alt mean-|corr| rung, which this collapsed ladder omits — "
+            "use time_delays_from_corr for those")
+    length = win.shape[-1]
+    lags = torch.arange(length, dtype=win.dtype,
+                        device=win.device) - wq * 128
+    thr = 0.84535 * threshold_multiplier * stats[..., 0:1]
+    lm = peaks_ops.local_maxima(win)
+    inwin = torch.abs(lags) <= max_expected_delay * fs
+    # A candidate loses to any strictly taller local maximum within
+    # +-distance samples: one max-dilation over the local-max heights
+    # (max_pool1d pads with -inf, like reduce_window's "SAME").
+    distance = max(int(fs * 0.001), 1)
+    neg = torch.full_like(win, -float("inf"))
+    heights = torch.where(lm, win, neg)
+    dil = F.max_pool1d(heights.reshape(-1, 1, length), 2 * distance + 1,
+                       stride=1, padding=distance).reshape(win.shape)
+    cand = lm & inwin & (win >= thr) & (win >= dil)
+    best = torch.argmax(torch.where(cand, win, neg), dim=-1)
+    has = torch.any(cand, dim=-1)
+    peak_lag = lags[best]
+    gidx = stats[..., 2]
+    glag = torch.where(gidx >= nfft // 2, gidx - nfft, gidx)
+    return torch.where(has, peak_lag, glag) / fs
 
 
 def peak_to_peak_ratio(corr: torch.Tensor) -> torch.Tensor:

@@ -5,10 +5,12 @@ The solver minimizes ``sum_p (w_p * r_p)^2`` with
 ``r_p = (||x - m_j|| - ||x - m_i||) - c * tau_p``; the first-order
 (Gauss-Markov) covariance of the weighted-least-squares fix is the sandwich
 ``A J^T W^2 S W^2 J A`` with ``A = (J^T W^2 J)^{-1}``, which for the default
-residual-estimated noise scale collapses to ``sigma_hat^2 * A``.  Host-side
-NumPy on (P, 3)-sized arrays, run after the estimate is fetched: the same
-code as the JAX package's host path.  The batched covariance and the
-narrowband jackknife belong to later slices.
+residual-estimated noise scale collapses to ``sigma_hat^2 * A``.
+``position_uncertainty`` is host-side NumPy on (P, 3)-sized arrays, run
+after the estimate is fetched: the same code as the JAX package's host
+path.  ``position_covariance`` is its batched device form, which the sweep
+attaches to every scene.  The narrowband jackknife belongs to a later
+slice.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import logging
 from typing import Dict, Optional, Sequence
 
 import numpy as np
+import torch
 
 logger = logging.getLogger(__name__)
 
@@ -44,6 +47,55 @@ def tdoa_jacobian(x: np.ndarray, mic_positions: np.ndarray,
     pi = np.asarray(pairs_i, np.intp)
     pj = np.asarray(pairs_j, np.intp)
     return unit[pj] - unit[pi]
+
+
+def _inv3(a: torch.Tensor) -> torch.Tensor:
+    """Closed-form 3x3 inverse via the adjugate over (..., 3, 3); a
+    singular input returns inf/NaN entries."""
+    a00, a01, a02 = a[..., 0, 0], a[..., 0, 1], a[..., 0, 2]
+    a10, a11, a12 = a[..., 1, 0], a[..., 1, 1], a[..., 1, 2]
+    a20, a21, a22 = a[..., 2, 0], a[..., 2, 1], a[..., 2, 2]
+    c00 = a11 * a22 - a12 * a21
+    c01 = a12 * a20 - a10 * a22
+    c02 = a10 * a21 - a11 * a20
+    det = a00 * c00 + a01 * c01 + a02 * c02
+    adj = torch.stack([
+        torch.stack([c00, a02 * a21 - a01 * a22, a01 * a12 - a02 * a11], -1),
+        torch.stack([c01, a00 * a22 - a02 * a20, a02 * a10 - a00 * a12], -1),
+        torch.stack([c02, a01 * a20 - a00 * a21, a00 * a11 - a01 * a10], -1),
+    ], -2)
+    return adj / det[..., None, None]
+
+
+def position_covariance(x_hat: torch.Tensor, mic_positions: torch.Tensor,
+                        pairs_i: Sequence[int], pairs_j: Sequence[int],
+                        tdoas: torch.Tensor, c,
+                        weights: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Residual-estimated Gauss-Markov covariance of TDOA fixes, batched:
+    ``sigma_hat^2 (J^T W^2 J)^{-1}`` with ``sigma_hat^2 = sum (w_p r_p)^2 /
+    (P - 3)``.  x_hat (..., 3), mics (..., M, 3) or (M, 3), tdoas (..., P)
+    -> (..., 3, 3).  As in the JAX package (models/uncertainty.py:101
+    there): no null-space analysis (a degenerate array gives inf/NaN
+    entries) and all-NaN when P <= 3."""
+    num_pairs = len(pairs_i)
+    if num_pairs - 3 < 1:
+        return torch.full(x_hat.shape[:-1] + (3, 3), float("nan"),
+                          dtype=tdoas.dtype, device=tdoas.device)
+    pi = torch.as_tensor(list(pairs_i), device=x_hat.device)
+    pj = torch.as_tensor(list(pairs_j), device=x_hat.device)
+    diff = x_hat[..., None, :] - mic_positions                   # (..., M, 3)
+    dist = torch.linalg.norm(diff, dim=-1)
+    unit = diff / torch.clamp(dist, min=1e-12)[..., None]
+    jac = unit[..., pj, :] - unit[..., pi, :]                    # (..., P, 3)
+    w = (torch.ones(num_pairs, dtype=tdoas.dtype, device=tdoas.device)
+         if weights is None else weights)
+    w2 = w * w
+    normal = jac.transpose(-1, -2) @ (w2[..., None] * jac)
+    r = (dist[..., pj] - dist[..., pi]) - c * tdoas
+    sigma2_hat = torch.sum((w * r) ** 2, -1) / (num_pairs - 3)
+    cov = sigma2_hat[..., None, None] * _inv3(normal)
+    return 0.5 * (cov + cov.transpose(-1, -2))
 
 
 def position_uncertainty(x_hat: np.ndarray,

@@ -1,27 +1,33 @@
-"""The slice's hand-written CUDA kernels: wrappers, plain twins, build.
+"""The port's hand-written CUDA kernels: wrappers, plain twins, build.
 
-Four kernels replace the Pallas kernels of the TPU package that the
-physical-mode path reaches (``pyaudiolocalization_tpu/ops/pallas_fft.py``):
+Six kernels replace the Pallas kernels of the TPU package
+(``pyaudiolocalization_tpu/ops/pallas_fft.py``):
 
-============== ==================================== =========================
-wrapper        replaces                             what bounds it on an H100
-============== ==================================== =========================
-fft_real       bfly_fft_real (:685)                 memory: FFT passes
-gcc_all_pairs  bfly_gcc_all_pairs (:922)            memory: FFT passes
-bootstrap_peaks bfly_bootstrap_peaks (:1227)        memory: FFT passes
-delay_sum      bfly_delay_sum (:1851)               memory: FFT passes
-============== ==================================== =========================
+=============== ============================== ===============================
+wrapper         replaces                       what bounds it on an H100
+=============== ============================== ===============================
+fft_real        bfly_fft_real (:685)           memory: FFT passes
+gcc_all_pairs   bfly_gcc_all_pairs (:922)      memory: FFT passes
+gcc_windowed    bfly_gcc_windowed (:1095)      memory: FFT passes
+bootstrap_peaks bfly_bootstrap_peaks (:1227)   memory: FFT passes
+scene_windowed  bfly_scene_windowed (:1600)    memory: FFT passes
+delay_sum       bfly_delay_sum (:1851)         memory: FFT passes
+=============== ============================== ===============================
 
-All four are built from one FFT (``csrc/fft.cuh``): radix-2 Stockham
+All six are built from one FFT (``csrc/fft.cuh``): radix-2 Stockham
 passes over rows in device memory, 16 bytes moved per point per pass, so
 every kernel is bound by device-memory (and L2) bandwidth at about
 16·log2(nfft) bytes per point and transform.  The design keeps the rest
 of the work out of device memory where the TPU kernels did: real rows are
 packed two to a complex transform, the whitening / ramp synthesis runs in
 one pass over the spectra, two real results share each inverse, and the
-bootstrap's (rows, nfft) correlation is reduced to its maxima inside the
-last inverse pass instead of being written.  The TPU kernels' bit-reversed
-(N2, 128) plane layout is not carried over: spectra are in natural order.
+bootstrap's maxima and the windowed GCC's lag window and statistics are
+taken inside the last inverse pass instead of writing the correlation.
+The TPU kernels' bit-reversed (N2, 128) plane layout is not carried over:
+spectra are in natural order.  The render, windowed-GCC and scene kernels
+take a leading scene axis; every launch covers all scenes.  Measurement
+noise comes from a counter-based Philox generator (``csrc/philox.cuh``,
+twin ``ops/noise.py``) in place of the TPU core's random bits.
 
 Every wrapper takes the plain PyTorch twin (``*_plain``, same module, same
 semantics, ``torch.fft``) for a tensor on the CPU, launches its kernel for
@@ -46,13 +52,15 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from . import noise as noise_ops
 from . import signal as sig_ops
 
 PHAT_EPS = 1e-10
 
 #: Kernel launches per wrapper since the last ``reset_launches()``.
 LAUNCHES: Dict[str, int] = {"fft_real": 0, "gcc_all_pairs": 0,
-                            "bootstrap_peaks": 0, "delay_sum": 0}
+                            "gcc_windowed": 0, "bootstrap_peaks": 0,
+                            "delay_sum": 0, "scene_windowed": 0}
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -123,8 +131,13 @@ def _library() -> ctypes.CDLL:
             "palt_gcc_all_pairs": [p, i, i, i, p, p, i, p, f, p, p, p, p, p,
                                    p, p],
             "palt_bootstrap_peaks": [p, p, i, i, i, f, p, p, p, p, p],
-            "palt_delay_sum": [p, i, p, p, i, i, i, i, p, i, p, p, p, p, p,
-                               p, p],
+            "palt_gcc_windowed": [p, i, i, i, i, p, p, i, p, f, i, p, p, p,
+                                  p, p, p, p, p],
+            "palt_delay_sum": [p, i, i, p, p, i, i, i, i, p, i, p, p, p, p,
+                               p, p, p, p, p],
+            "palt_scene_windowed": [p, i, i, p, p, i, i, i, i, p, p, p, p, p,
+                                    i, p, f, i, p, p, p, p, p, p, p, p, p,
+                                    p],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)
@@ -249,10 +262,11 @@ def gcc_all_pairs_plain(signals: torch.Tensor, pairs_i: Sequence[int],
                         pairs_j: Sequence[int], nfft: int,
                         mask: torch.Tensor,
                         eps: float = PHAT_EPS) -> torch.Tensor:
+    """(..., M, len) -> (..., P, nfft); any leading axes."""
     pi = torch.as_tensor(np.asarray(pairs_i), device=signals.device)
     pj = torch.as_tensor(np.asarray(pairs_j), device=signals.device)
     spec = torch.fft.rfft(signals, n=nfft)
-    cross = spec[pi] * torch.conj(spec[pj])
+    cross = spec[..., pi, :] * torch.conj(spec[..., pj, :])
     inv = 1.0 / (torch.sqrt(cross.real ** 2 + cross.imag ** 2) + eps)
     white = cross * inv * mask.to(signals.dtype)
     return torch.fft.irfft(white, n=nfft)
@@ -300,6 +314,96 @@ def gcc_all_pairs(signals: torch.Tensor, pairs_i: Sequence[int],
             cpl[1].data_ptr(), out.data_ptr(), _stream(dev))
     _raise_on("gcc_all_pairs", err)
     return out
+
+
+# ---------------------------------------------------------------------------
+# K2: windowed all-pairs PHAT correlations + statistics
+# ---------------------------------------------------------------------------
+
+def gcc_windowed_plain(signals: torch.Tensor, pairs_i: Sequence[int],
+                       pairs_j: Sequence[int], nfft: int, wq: int,
+                       mask: torch.Tensor, eps: float = PHAT_EPS):
+    corr = gcc_all_pairs_plain(signals, pairs_i, pairs_j, nfft, mask, eps)
+    w = wq * 128
+    win = torch.cat([corr[..., nfft - w:], corr[..., :w]], -1)
+    stats = torch.stack([torch.mean(torch.abs(corr), -1),
+                         torch.amax(corr, -1),
+                         torch.argmax(corr, -1).to(corr.dtype)], -1)
+    return win, stats
+
+
+def _check_pairs(name: str, pairs_i, pairs_j, mics: int):
+    pi = np.asarray(pairs_i, np.int64)
+    pj = np.asarray(pairs_j, np.int64)
+    if (pi.ndim != 1 or pi.shape[0] == 0 or pj.shape != pi.shape
+            or min(pi.min(), pj.min()) < 0
+            or max(pi.max(), pj.max()) >= mics):
+        raise ValueError(f"{name}: unsupported pair indices")
+    return pi, pj
+
+
+def _check_window(name: str, nfft: int, wq: int) -> None:
+    if not 0 < wq <= nfft // 256:
+        raise ValueError(f"{name}: wq must be in (0, nfft/256], got wq={wq} "
+                         f"at nfft={nfft}")
+
+
+def gcc_windowed(signals: torch.Tensor, pairs_i: Sequence[int],
+                 pairs_j: Sequence[int], nfft: int, wq: int,
+                 mask: torch.Tensor, eps: float = PHAT_EPS):
+    """(..., M, len <= nfft) signals -> (win (..., P, 2*wq*128), stats
+    (..., P, 3)): the band-masked PHAT correlation of every pair, reduced
+    to its lag window (sample s holds lag s - wq*128) and three statistics
+    over the whole correlation (mean |corr|, maximum, the smallest natural
+    index attaining it).  wq <= nfft/256.
+
+    Replaces ``bfly_gcc_windowed`` (pyaudiolocalization_tpu/ops/
+    pallas_fft.py:1095; ``_couple_window_stats`` :1032): K1's packed
+    forward and whitening over every row of every scene, the packed
+    inverse, and its last pass fused with the scale, the window write and
+    the statistics (one block per pair couple), so the (..., P, nfft)
+    correlation is never written.  Bound by the FFT passes' device-memory
+    traffic."""
+    _check_window("gcc_windowed", nfft, wq)
+    if _use_plain(signals, mask):
+        return gcc_windowed_plain(signals, pairs_i, pairs_j, nfft, wq, mask,
+                                  eps)
+    _check_contiguous("gcc_windowed", signals, mask)
+    _check_f32("gcc_windowed", signals, mask)
+    _check_pow2(nfft)
+    lead = signals.shape[:-2]
+    mics, length = signals.shape[-2:]
+    pi, pj = _check_pairs("gcc_windowed", pairs_i, pairs_j, mics)
+    scenes = int(np.prod(lead)) if lead else 1
+    num_pairs = int(pi.shape[0])
+    couples = (num_pairs + 1) // 2
+    rows = scenes * mics
+    if (length > nfft or mask.shape != (nfft // 2 + 1,) or scenes == 0
+            or (rows + 1) // 2 > _MAX_GRID_Y
+            or scenes * couples > _MAX_GRID_Y):
+        raise ValueError("gcc_windowed: unsupported shapes")
+    lib = _library()
+    dev = signals.device
+    pi_t = torch.as_tensor(pi, dtype=torch.int32, device=dev)
+    pj_t = torch.as_tensor(pj, dtype=torch.int32, device=dev)
+    width = 2 * wq * 128
+    win = torch.empty(lead + (num_pairs, width), dtype=torch.float32,
+                      device=dev)
+    stats = torch.empty(lead + (num_pairs, 3), dtype=torch.float32,
+                        device=dev)
+    spec = [_scratch((rows + 1) // 2, nfft, dev) for _ in range(2)]
+    cpl = [_scratch(scenes * couples, nfft, dev) for _ in range(2)]
+    tw = _twiddles(nfft, str(dev))
+    with torch.cuda.device(dev):
+        LAUNCHES["gcc_windowed"] += 1
+        err = lib.palt_gcc_windowed(
+            signals.data_ptr(), scenes, mics, length, nfft, pi_t.data_ptr(),
+            pj_t.data_ptr(), num_pairs, mask.data_ptr(), eps, wq,
+            tw.data_ptr(), spec[0].data_ptr(), spec[1].data_ptr(),
+            cpl[0].data_ptr(), cpl[1].data_ptr(), win.data_ptr(),
+            stats.data_ptr(), _stream(dev))
+    _raise_on("gcc_windowed", err)
+    return win, stats
 
 
 # ---------------------------------------------------------------------------
@@ -358,8 +462,9 @@ def bootstrap_peaks(s1: torch.Tensor, rows: torch.Tensor, nfft: int,
 
 def delay_sum_plain(base: torch.Tensor, tau: torch.Tensor,
                     gains: torch.Tensor, nfft: int, out_samples: int,
-                    fade: torch.Tensor, finalize: bool) -> torch.Tensor:
-    spec = torch.fft.rfft(base, n=nfft)
+                    fade: torch.Tensor, finalize: bool, snr_db=None,
+                    seeds=None) -> torch.Tensor:
+    spec = torch.fft.rfft(base, n=nfft)                       # (..., F)
     k = torch.arange(nfft // 2 + 1, dtype=torch.float64, device=base.device)
     # Phase k*tau/nfft in turns, reduced by whole turns in float64 (exact
     # for the integer bin index), as the kernel does.
@@ -367,59 +472,184 @@ def delay_sum_plain(base: torch.Tensor, tau: torch.Tensor,
     turns = turns - torch.floor(turns)
     theta = 2.0 * np.pi * turns
     ramps = torch.complex(torch.cos(theta), -torch.sin(theta)).to(spec.dtype)
-    mixed = torch.einsum("mp,mpf->mf", gains.to(spec.dtype), ramps) * spec
-    out = torch.fft.irfft(mixed, n=nfft)[:, :out_samples] * fade
+    mixed = torch.sum(gains.to(spec.dtype)[..., None] * ramps,
+                      -2) * spec[..., None, :]
+    # A real render's Nyquist response is real (cos(pi*tau)), as in the
+    # kernel; cuFFT's float32 inverse does not ignore an imaginary part
+    # there.
+    mixed[..., -1] = mixed[..., -1].real.to(mixed.dtype)
+    out = torch.fft.irfft(mixed, n=nfft)[..., :out_samples] * fade
     if finalize:
         out = sig_ops.dynamic_range_compression(sig_ops.normalize_signal(out))
+    if snr_db is not None:
+        out = noise_ops.add_noise(out, snr_db, seeds)
     return out
+
+
+def _check_noise_pair(name, snr_db, seeds):
+    if (snr_db is None) != (seeds is None):
+        raise ValueError(f"{name}: snr_db and seeds go together")
+
+
+def _check_noise(name, snr_db, seeds, lead, dev):
+    if snr_db is None:
+        return None, None
+    if tuple(snr_db.shape) != tuple(lead) or tuple(seeds.shape) != (
+            tuple(lead) + (2,)):
+        raise ValueError(f"{name}: snr_db must be {tuple(lead)} and seeds "
+                         f"{tuple(lead) + (2,)}")
+    if seeds.dtype != torch.int32 or snr_db.device != dev \
+            or seeds.device != dev:
+        raise ValueError(f"{name}: seeds must be int32 and both on {dev}")
+    _check_f32(name, snr_db)
+    return snr_db.contiguous(), seeds.contiguous()
+
+
+def _render_shapes(name, base, tau, gains, nfft, out_samples, fade):
+    lead = base.shape[:-1]
+    length = base.shape[-1]
+    if tau.dim() != base.dim() + 1 or tau.shape[:-2] != lead:
+        raise ValueError(f"{name}: tau must be {tuple(lead)} + (M, paths)")
+    mics, paths = tau.shape[-2:]
+    scenes = int(np.prod(lead)) if lead else 1
+    if (length > nfft or gains.shape != tau.shape or paths == 0
+            or scenes == 0 or out_samples > nfft
+            or fade.shape != (out_samples,)
+            or (scenes + 1) // 2 > _MAX_GRID_Y
+            or (scenes * mics + 1) // 2 > _MAX_GRID_Y):
+        raise ValueError(f"{name}: unsupported shapes")
+    return lead, scenes, length, mics, paths
 
 
 def delay_sum(base: torch.Tensor, tau: torch.Tensor, gains: torch.Tensor,
               nfft: int, out_samples: int, fade: torch.Tensor,
-              finalize: bool, snr_db=None) -> torch.Tensor:
-    """Multipath render: for each mic m, the sum over paths p of
-    ``gains[m, p]`` times ``base`` delayed by ``tau[m, p]`` samples
-    (circular at ``nfft``), scaled by ``fade`` ((out_samples,)) and trimmed
-    to ``out_samples``; ``finalize`` adds the per-mic peak-normalize, log
-    compression and re-normalize.  base (len <= nfft,), tau / gains
-    (M, paths) -> (M, out_samples).
+              finalize: bool, snr_db: Optional[torch.Tensor] = None,
+              seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Multipath render: for each scene and mic m, the sum over paths p of
+    ``gains[..., m, p]`` times the scene's ``base`` delayed by
+    ``tau[..., m, p]`` samples (circular at ``nfft``), scaled by ``fade``
+    ((out_samples,)) and trimmed to ``out_samples``; ``finalize`` adds the
+    per-mic peak-normalize, log compression and re-normalize; ``snr_db``
+    ((...,) dB) with ``seeds`` ((..., 2) int32) then adds white noise at
+    sigma = rms * 10^(-snr/20) per mic (``ops/noise.py``).  base
+    (..., len <= nfft), tau / gains (..., M, paths) -> (..., M, out_samples).
 
     Replaces ``bfly_delay_sum`` (pyaudiolocalization_tpu/ops/pallas_fft.py:
-    1851): one forward transform of the base, per-mic transfer functions
-    synthesized on the fly from (tau, gain) with the phase reduced by whole
-    turns and a real Nyquist bin (cos(pi*tau)), two mics per packed
-    inverse, and one block per mic for scale, fade, trim and finalize.
-    Bound by the FFT passes' device-memory traffic.  The in-kernel noise of
-    the TPU kernel (``snr_db``) is not ported yet."""
-    if snr_db is not None:
-        raise NotImplementedError(
-            "delay_sum: in-kernel measurement noise (snr_db) arrives with "
-            "the sweep's fused scene kernel in a later PR")
+    1851; ``_render_postprocess`` :1788): one forward transform per base
+    (two scenes per packed row), per-mic transfer functions synthesized on
+    the fly from (tau, gain) with the phase reduced by whole turns and a
+    real Nyquist bin (cos(pi*tau)), two mic rows per packed inverse, and
+    one block per mic row for scale, fade, trim, finalize and noise.  One
+    launch covers every scene.  Bound by the FFT passes' device-memory
+    traffic."""
+    _check_noise_pair("delay_sum", snr_db, seeds)
     if _use_plain(base, tau, gains, fade):
         return delay_sum_plain(base, tau, gains, nfft, out_samples, fade,
-                               finalize)
+                               finalize, snr_db, seeds)
     _check_contiguous("delay_sum", base, tau, gains, fade)
     _check_f32("delay_sum", base, tau, gains, fade)
     _check_pow2(nfft)
-    (length,) = base.shape
-    mics, paths = tau.shape
-    if (length > nfft or gains.shape != tau.shape or paths == 0
-            or out_samples > nfft or fade.shape != (out_samples,)
-            or (mics + 1) // 2 > _MAX_GRID_Y):
-        raise ValueError("delay_sum: unsupported shapes")
+    lead, scenes, length, mics, paths = _render_shapes(
+        "delay_sum", base, tau, gains, nfft, out_samples, fade)
+    snr_db, seeds = _check_noise("delay_sum", snr_db, seeds, lead,
+                                 base.device)
     lib = _library()
     dev = base.device
-    out = torch.empty((mics, out_samples), dtype=torch.float32, device=dev)
-    zb = [_scratch(1, nfft, dev) for _ in range(2)]
-    zm = [_scratch((mics + 1) // 2, nfft, dev) for _ in range(2)]
+    out = torch.empty(lead + (mics, out_samples), dtype=torch.float32,
+                      device=dev)
+    zb = [_scratch((scenes + 1) // 2, nfft, dev) for _ in range(2)]
+    zm = [_scratch((scenes * mics + 1) // 2, nfft, dev) for _ in range(2)]
     tw = _twiddles(nfft, str(dev))
     with torch.cuda.device(dev):
         LAUNCHES["delay_sum"] += 1
         err = lib.palt_delay_sum(
-            base.data_ptr(), length, tau.data_ptr(), gains.data_ptr(), mics,
-            paths, nfft, out_samples, fade.data_ptr(), int(finalize),
-            tw.data_ptr(), zb[0].data_ptr(), zb[1].data_ptr(),
-            zm[0].data_ptr(), zm[1].data_ptr(), out.data_ptr(),
-            _stream(dev))
+            base.data_ptr(), scenes, length, tau.data_ptr(),
+            gains.data_ptr(), mics, paths, nfft, out_samples,
+            fade.data_ptr(), int(finalize),
+            None if snr_db is None else snr_db.data_ptr(),
+            None if seeds is None else seeds.data_ptr(), tw.data_ptr(),
+            zb[0].data_ptr(), zb[1].data_ptr(), zm[0].data_ptr(),
+            zm[1].data_ptr(), out.data_ptr(), _stream(dev))
     _raise_on("delay_sum", err)
     return out
+
+
+# ---------------------------------------------------------------------------
+# K5: whole scene (render -> windowed GCC)
+# ---------------------------------------------------------------------------
+
+def scene_windowed_plain(base, tau, gains, pairs_i, pairs_j, nfft: int,
+                         out_samples: int, wq: int, fade, mask, snr_db=None,
+                         seeds=None, eps: float = PHAT_EPS):
+    sigs = delay_sum_plain(base, tau, gains, nfft, out_samples, fade, True,
+                           snr_db, seeds)
+    return gcc_windowed_plain(sigs, pairs_i, pairs_j, nfft, wq, mask, eps)
+
+
+def scene_windowed(base: torch.Tensor, tau: torch.Tensor,
+                   gains: torch.Tensor, pairs_i: Sequence[int],
+                   pairs_j: Sequence[int], nfft: int, out_samples: int,
+                   wq: int, fade: torch.Tensor, mask: torch.Tensor,
+                   snr_db: Optional[torch.Tensor] = None,
+                   seeds: Optional[torch.Tensor] = None,
+                   eps: float = PHAT_EPS):
+    """Whole-scene pipeline: ``gcc_windowed(delay_sum(base, tau, gains,
+    nfft, out_samples, fade, finalize=True, snr_db, seeds), pairs, nfft,
+    wq, mask)`` for every scene, with the rendered signals never handed
+    back.  base (..., len), tau / gains (..., M, paths) -> (win (..., P,
+    2*wq*128), stats (..., P, 3)).
+
+    Replaces ``bfly_scene_windowed`` (pyaudiolocalization_tpu/ops/
+    pallas_fft.py:1600; ``_bfly_scene_kernel`` :1503).  The TPU kernel kept
+    one scene in VMEM; one scene's 4 x 65,536 complex spectra (2 MB)
+    exceed a block's 227 KB of shared memory, so here one host entry runs
+    K3's passes and K2's passes for all scenes back to back on one stream,
+    the intermediates in device memory and L2.  The finalize / noise block
+    writes each finished signal in place as the packed forward input of
+    the GCC stage (zero-padded to nfft).  Bound by the FFT passes'
+    device-memory traffic."""
+    _check_noise_pair("scene_windowed", snr_db, seeds)
+    _check_window("scene_windowed", nfft, wq)
+    if _use_plain(base, tau, gains, fade, mask):
+        return scene_windowed_plain(base, tau, gains, pairs_i, pairs_j, nfft,
+                                    out_samples, wq, fade, mask, snr_db,
+                                    seeds, eps)
+    _check_contiguous("scene_windowed", base, tau, gains, fade, mask)
+    _check_f32("scene_windowed", base, tau, gains, fade, mask)
+    _check_pow2(nfft)
+    lead, scenes, length, mics, paths = _render_shapes(
+        "scene_windowed", base, tau, gains, nfft, out_samples, fade)
+    snr_db, seeds = _check_noise("scene_windowed", snr_db, seeds, lead,
+                                 base.device)
+    pi, pj = _check_pairs("scene_windowed", pairs_i, pairs_j, mics)
+    num_pairs = int(pi.shape[0])
+    couples = (num_pairs + 1) // 2
+    if mask.shape != (nfft // 2 + 1,) or scenes * couples > _MAX_GRID_Y:
+        raise ValueError("scene_windowed: unsupported shapes")
+    lib = _library()
+    dev = base.device
+    pi_t = torch.as_tensor(pi, dtype=torch.int32, device=dev)
+    pj_t = torch.as_tensor(pj, dtype=torch.int32, device=dev)
+    width = 2 * wq * 128
+    win = torch.empty(lead + (num_pairs, width), dtype=torch.float32,
+                      device=dev)
+    stats = torch.empty(lead + (num_pairs, 3), dtype=torch.float32,
+                        device=dev)
+    zb = [_scratch((scenes + 1) // 2, nfft, dev) for _ in range(2)]
+    zm = [_scratch((scenes * mics + 1) // 2, nfft, dev) for _ in range(2)]
+    cpl = [_scratch(scenes * couples, nfft, dev) for _ in range(2)]
+    tw = _twiddles(nfft, str(dev))
+    with torch.cuda.device(dev):
+        LAUNCHES["scene_windowed"] += 1
+        err = lib.palt_scene_windowed(
+            base.data_ptr(), scenes, length, tau.data_ptr(),
+            gains.data_ptr(), mics, paths, nfft, out_samples,
+            fade.data_ptr(), None if snr_db is None else snr_db.data_ptr(),
+            None if seeds is None else seeds.data_ptr(), pi_t.data_ptr(),
+            pj_t.data_ptr(), num_pairs, mask.data_ptr(), eps, wq,
+            tw.data_ptr(), zb[0].data_ptr(), zb[1].data_ptr(),
+            zm[0].data_ptr(), zm[1].data_ptr(), cpl[0].data_ptr(),
+            cpl[1].data_ptr(), win.data_ptr(), stats.data_ptr(),
+            _stream(dev))
+    _raise_on("scene_windowed", err)
+    return win, stats

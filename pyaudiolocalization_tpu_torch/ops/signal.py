@@ -58,30 +58,35 @@ def chirp_linear(fs: float, num_samples: int, f0, f1, t1: float,
 
 
 def white_noise(generator: torch.Generator, num_samples: int, dtype=None,
-                device=None) -> torch.Tensor:
-    return torch.randn(num_samples, generator=generator, dtype=dtype,
+                device=None, batch: Optional[int] = None) -> torch.Tensor:
+    shape = (num_samples,) if batch is None else (batch, num_samples)
+    return torch.randn(shape, generator=generator, dtype=dtype,
                        device=device)
 
 
 def generate_signal(signal_type: str, fs: float, duration: float, freq,
                     generator: Optional[torch.Generator] = None, dtype=None,
-                    device=None) -> torch.Tensor:
+                    device=None, batch: Optional[int] = None) -> torch.Tensor:
     """Dispatcher matching generate_signal (signal_processing.py:25-36).
-    ``freq`` may be a Python float or a 0-d tensor of ``dtype``."""
+    ``freq`` may be a Python float or a 0-d tensor of ``dtype``.  With
+    ``batch``, returns (batch, N): one draw of independent noise rows, or
+    the deterministic signal repeated."""
     num_samples = int(fs * duration)
-    if signal_type == "sine":
-        return sine(fs, num_samples, freq, dtype, device)
-    if signal_type == "chirp":
-        return chirp_linear(fs, num_samples, freq, freq * 5, duration, dtype,
-                            device)
     if signal_type == "noise":
         if generator is None:
             raise ValueError("signal_type 'noise' requires a torch.Generator")
-        return white_noise(generator, num_samples, dtype, device)
-    if signal_type == "speech":
+        return white_noise(generator, num_samples, dtype, device, batch)
+    if signal_type == "sine":
+        out = sine(fs, num_samples, freq, dtype, device)
+    elif signal_type == "chirp":
+        out = chirp_linear(fs, num_samples, freq, freq * 5, duration, dtype,
+                           device)
+    elif signal_type == "speech":
         raise NotImplementedError(
             "signal_type 'speech' is not ported yet; it follows with the "
             "parity-mode slice")
-    raise ValueError(
-        "Unknown signal type. Available types: 'sine', 'noise', 'chirp', "
-        "'speech'")
+    else:
+        raise ValueError(
+            "Unknown signal type. Available types: 'sine', 'noise', "
+            "'chirp', 'speech'")
+    return out if batch is None else out.expand(batch, num_samples)

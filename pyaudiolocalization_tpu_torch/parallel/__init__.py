@@ -1,0 +1,9 @@
+"""Batched Monte-Carlo scene sweeps (counterpart of the JAX package's
+parallel/ package)."""
+
+from .sweep import (  # noqa: F401
+    SceneResult, SweepSpec, SweepSummary, localize_batch, monte_carlo_sweep,
+    run_scene)
+
+__all__ = ["SweepSpec", "SceneResult", "SweepSummary", "localize_batch",
+           "run_scene", "monte_carlo_sweep"]

@@ -1,4 +1,5 @@
-"""The four CUDA kernels against their plain PyTorch twins on the card.
+"""The CUDA kernels against their plain PyTorch twins on the card, and the
+port's paths on the card against the CPU.
 
 Marked ``cuda``: without a card every test here skips (decided inside the
 ``cuda`` fixture).  The file imports no jax, so it also runs on a machine
@@ -8,7 +9,9 @@ with only torch:
 
 Tolerances are float32's: transforms of log2(nfft) radix-2 passes in the
 kernel and in cuFFT, compared on values bounded by 1 (correlations, finalized
-renders) or relative to the spectrum's peak (``fft_real``).
+renders) or relative to the spectrum's peak (``fft_real``).  Noisy renders
+add the Philox normals (same integers in kernel and twin, float32
+log/cos/sqrt within a few units in the last place) times sigma <= 0.1.
 """
 
 import copy
@@ -19,7 +22,11 @@ import torch
 
 from pyaudiolocalization_tpu_torch import DEFAULT_CONFIG, localize_sound_source
 from pyaudiolocalization_tpu_torch.ops import cuda_fft as cf
+from pyaudiolocalization_tpu_torch.ops import noise as noise_ops
 from pyaudiolocalization_tpu_torch.ops.delay import fade_window
+from pyaudiolocalization_tpu_torch.parallel import (SweepSpec, localize_batch,
+                                                    monte_carlo_sweep,
+                                                    run_scene, sweep)
 
 
 @pytest.fixture
@@ -147,10 +154,135 @@ def test_main_path_on_the_card_matches_the_cpu_path(cuda):
                signal_type="chirp")
     cfg["localization"].update(lag_mode="physical", sync_mode="none",
                                max_reflections=1, num_bootstrap=64)
-    cpu = localize_sound_source(cfg, dtype=torch.float64)
+    cpu = localize_sound_source(cfg, device="cpu", dtype=torch.float64)
     cf.reset_launches()
     card = localize_sound_source(cfg, device=cuda, dtype=torch.float32)
-    assert all(v > 0 for v in cf.LAUNCHES.values()), cf.LAUNCHES
+    path = ("fft_real", "gcc_all_pairs", "bootstrap_peaks", "delay_sum")
+    assert all(cf.LAUNCHES[k] > 0 for k in path), cf.LAUNCHES
     np.testing.assert_allclose(card["tdoas"], cpu["tdoas"], atol=1e-6)
     np.testing.assert_allclose(card["estimated_position"],
                                cpu["estimated_position"], atol=1e-3)
+
+
+def _scene_inputs(dev, scenes, m, paths, total, out, seed=0):
+    g = _gen(dev, seed)
+    base = torch.zeros((scenes, total), device=dev)
+    base[:, :out] = torch.randn((scenes, out), generator=g, device=dev)
+    tau = torch.rand((scenes, m, paths), generator=g, device=dev) * (
+        total - out + 1)
+    gains = torch.rand((scenes, m, paths), generator=g, device=dev)
+    gains[..., 0] = 1.0  # the strongest path has gain 1, as in scene_paths
+    snr = 20.0 + 20.0 * torch.rand(scenes, generator=g, device=dev)
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (scenes, 2), generator=g,
+                          dtype=torch.int32, device=dev)
+    fade = fade_window(total, dtype=torch.float32, device=dev)[:out]
+    return base, tau.contiguous(), gains.contiguous(), snr, seeds, \
+        fade.contiguous()
+
+
+@pytest.mark.cuda
+def test_philox_bits_match_on_the_card(cuda):
+    """The twin's integers are the same on the card and on the CPU; its
+    float32 normals differ by the two libraries' last places only."""
+    seeds = torch.tensor([[5, -7], [2 ** 31 - 1, -2 ** 31]],
+                         dtype=torch.int32)
+    k0, k1 = noise_ops.mic_keys(seeds, 3)
+    t = torch.arange(1000)
+    cpu = noise_ops.philox_bits(k0, k1, t)
+    card = noise_ops.philox_bits(k0.to(cuda), k1.to(cuda), t.to(cuda))
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(cpu, card))
+    z = noise_ops.normal(seeds, 3, 1000)
+    zc = noise_ops.normal(seeds.to(cuda), 3, 1000)
+    assert float((z - zc.cpu()).abs().max()) < 2e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenes,m,length,nfft,wq", [
+    (1, 4, 44100, 65536, 21), (512, 4, 44100, 65536, 6),
+    (2, 3, 3000, 4096, 2), (3, 5, 1500, 2048, 4)])
+def test_gcc_windowed_kernel_matches_plain(cuda, scenes, m, length, nfft,
+                                           wq):
+    sig = torch.randn((scenes, m, length), generator=_gen(cuda), device=cuda)
+    pi, pj = _pairs(m)
+    for band in ((300.0, 3400.0), None):
+        mask = cf.band_mask(nfft, band, 44100.0, device=cuda)
+        before = cf.LAUNCHES["gcc_windowed"]
+        win, stats = cf.gcc_windowed(sig, pi, pj, nfft, wq, mask)
+        assert cf.LAUNCHES["gcc_windowed"] == before + 1
+        w2, s2 = cf.gcc_windowed_plain(sig, pi, pj, nfft, wq, mask)
+        torch.cuda.synchronize()
+        assert win.shape == (scenes, len(pi), 2 * wq * 128)
+        assert float((win - w2).abs().max()) < 1e-6
+        assert torch.equal(stats[..., 2], s2[..., 2])
+        assert float((stats[..., :2] - s2[..., :2]).abs().max()) < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenes,m,paths,total,out,nfft", [
+    (512, 4, 1, 44356, 44100, 65536), (1, 4, 22, 50292, 44100, 65536),
+    (3, 3, 5, 3500, 3000, 4096)])
+def test_delay_sum_noise_kernel_matches_plain(cuda, scenes, m, paths, total,
+                                              out, nfft):
+    base, tau, gains, snr, seeds, fade = _scene_inputs(cuda, scenes, m,
+                                                       paths, total, out)
+    got = cf.delay_sum(base, tau, gains, nfft, out, fade, True, snr, seeds)
+    want = cf.delay_sum_plain(base, tau, gains, nfft, out, fade, True, snr,
+                              seeds)
+    torch.cuda.synchronize()
+    assert got.shape == (scenes, m, out)
+    assert float((got - want).abs().max()) < 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenes,m,paths,total,out,nfft,wq", [
+    (64, 4, 1, 44356, 44100, 65536, 6), (2, 3, 2, 1800, 1500, 2048, 3),
+    (2, 2, 2, 1024, 1024, 1024, 2)])
+def test_scene_windowed_kernel_matches_plain_and_split(cuda, scenes, m,
+                                                       paths, total, out,
+                                                       nfft, wq):
+    base, tau, gains, snr, seeds, fade = _scene_inputs(cuda, scenes, m,
+                                                       paths, total, out)
+    pi, pj = _pairs(m)
+    mask = cf.band_mask(nfft, (300.0, 3400.0), 8000.0, device=cuda)
+    win, stats = cf.scene_windowed(base, tau, gains, pi, pj, nfft, out, wq,
+                                   fade, mask, snr, seeds)
+    w2, s2 = cf.scene_windowed_plain(base, tau, gains, pi, pj, nfft, out,
+                                     wq, fade, mask, snr, seeds)
+    sigs = cf.delay_sum(base, tau, gains, nfft, out, fade, True, snr, seeds)
+    w3, s3 = cf.gcc_windowed(sigs, pi, pj, nfft, wq, mask)
+    torch.cuda.synchronize()
+    # Against the twin: float32 transforms plus the noise's last-place
+    # differences, whitened (PHAT divides by small bin magnitudes).
+    assert float((win - w2).abs().max()) < 2e-5
+    # Against the split kernels: the same arithmetic in the same order.
+    assert float((win - w3).abs().max()) < 1e-6
+    assert torch.equal(stats[..., 2], s3[..., 2])
+
+
+_SPEC = SweepSpec(fs=16000.0, duration=0.1, signal_type="noise",
+                  source_box_lo=(0.2, 0.2, 0.2),
+                  source_box_hi=(0.8, 0.8, 0.8), snr_db=(25.0, 35.0))
+
+
+@pytest.mark.cuda
+def test_fused_and_split_sweep_paths_agree_on_the_card(cuda):
+    cf.reset_launches()
+    fused = run_scene(_SPEC, 5, 16, device=cuda)
+    split = sweep._run_scenes(_SPEC, _gen(cuda, 5), 16, torch.float32,
+                              False)
+    assert cf.LAUNCHES["scene_windowed"] == 1
+    assert cf.LAUNCHES["delay_sum"] == 1 and cf.LAUNCHES["gcc_windowed"] == 1
+    assert float((fused.tdoas - split.tdoas).abs().max()) * _SPEC.fs < 0.5
+    assert float((fused.estimate - split.estimate).abs().max()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_sweep_on_the_card_matches_cpu_statistics(cuda):
+    """Different generators draw different scenes; the statistics agree."""
+    card = monte_carlo_sweep(_SPEC, 0, 32, device=cuda)
+    cpu = monte_carlo_sweep(_SPEC, 0, 32, device="cpu")
+    for s in (card, cpu):
+        assert float(s.rmse) < 0.5 and float(s.hit_rate) > 0.8
+    est, _, td = localize_batch(_SPEC, np.zeros((2, 4, 1600)),
+                                _SPEC.mic_positions, 0, device=cuda)
+    assert est.shape == (2, 3) and td.shape == (2, 6)

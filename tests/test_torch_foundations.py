@@ -174,15 +174,24 @@ def test_fade_window_and_delay_and_sum_match_jax(rng):
 
 
 def test_port_imports_without_jax():
-    """Every module of the port imports with jax blocked."""
+    """Every module of the port, and the numpy scene builder that
+    ``chip_smoke.py`` loads from tools/torch_sweep_golden.py, imports with
+    jax blocked."""
     code = (
-        "import sys, pkgutil, importlib\n"
+        "import sys, pkgutil, importlib, importlib.util\n"
         "sys.modules['jax'] = None\n"
         "import pyaudiolocalization_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "pkg.__name__ + '.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
+        "spec = importlib.util.spec_from_file_location('golden', "
+        "'tools/torch_sweep_golden.py')\n"
+        "tool = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(tool)\n"
+        "sigs, _ = tool.batch_scenes(0, 2, 8000.0, 0.05, tool.MICS, 343.0, "
+        "(0.2,) * 3, (0.8,) * 3)\n"
+        "assert sigs.shape == (2, 4, 400)\n"
         "assert not any(k == 'pyaudiolocalization_tpu' or "
         "k.startswith('pyaudiolocalization_tpu.') for k in sys.modules)\n"
         "assert sys.modules['jax'] is None\n"
@@ -190,4 +199,5 @@ def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 15
+    names = int(proc.stdout.strip())
+    assert names >= 20, names

@@ -112,7 +112,13 @@ def test_render_plain_matches_tpu_kernel_interpret():
 
 
 def test_render_noise_branch_not_ported():
+    """The noise branch is ported now; it needs the scene seeds with the
+    SNR and refuses one without the other."""
     x = torch.zeros(64)
-    with pytest.raises(NotImplementedError, match="snr_db"):
+    with pytest.raises(ValueError, match="snr_db"):
         cuda_fft.delay_sum(x, torch.zeros(2, 1), torch.ones(2, 1), 64, 64,
-                           torch.ones(64), True, snr_db=20.0)
+                           torch.ones(64), True, snr_db=torch.tensor(20.0))
+    with pytest.raises(ValueError, match="snr_db"):
+        cuda_fft.delay_sum(x, torch.zeros(2, 1), torch.ones(2, 1), 64, 64,
+                           torch.ones(64), True,
+                           seeds=torch.zeros(2, dtype=torch.int32))

@@ -46,7 +46,7 @@ def test_slice_matches_jax_end_to_end(source, signal_type):
             dtype=jnp.float64))
     want = jpkg.localize_sound_source(cfg, show_plots=False,
                                       dtype=jnp.float64, signals=signals)
-    got = tpkg.localize_sound_source(cfg, dtype=torch.float64,
+    got = tpkg.localize_sound_source(cfg, device="cpu", dtype=torch.float64,
                                      signals=signals)
     assert set(got) == set(want)
     assert np.any(np.abs(want["tdoas"]) > 0)
@@ -70,14 +70,14 @@ def test_slice_matches_jax_end_to_end(source, signal_type):
 
 def test_slice_defaults_to_cpu_and_is_seeded():
     cfg = _config()
-    a = tpkg.localize_sound_source(cfg)
-    b = tpkg.localize_sound_source(cfg)
+    a = tpkg.localize_sound_source(cfg, device="cpu")
+    b = tpkg.localize_sound_source(cfg, device="cpu")
     assert a["estimated_position"].dtype == np.float64
     np.testing.assert_array_equal(a["estimated_position"],
                                   b["estimated_position"])
     assert np.linalg.norm(a["estimated_position"] - [0.2, 0.6, 0.4]) < 0.05
     cfg["localization"]["visualize_correlation"] = True
-    c = tpkg.localize_sound_source(cfg)
+    c = tpkg.localize_sound_source(cfg, device="cpu")
     assert c["correlation_matrix"].shape == (4, 4)
 
 
@@ -91,17 +91,18 @@ def test_modes_outside_the_slice_raise(key, value):
     cfg = _config()
     cfg["localization"][key] = value
     with pytest.raises(NotImplementedError):
-        tpkg.localize_sound_source(cfg)
+        tpkg.localize_sound_source(cfg, device="cpu")
 
 
 def test_api_refusals():
     cfg = _config()
     with pytest.raises(NotImplementedError):
-        tpkg.localize_sound_source(cfg, show_plots=True)
+        tpkg.localize_sound_source(cfg, device="cpu", show_plots=True)
     with pytest.raises(NotImplementedError):
-        tpkg.localize_sound_source(cfg, calibration_data=[{"delay": 0.0}] * 4)
+        tpkg.localize_sound_source(cfg, device="cpu",
+                                   calibration_data=[{"delay": 0.0}] * 4)
     with pytest.raises(NotImplementedError):
-        tpkg.localize_sound_source(cfg, use_simulation=False,
+        tpkg.localize_sound_source(cfg, device="cpu", use_simulation=False,
                                    audio_files=["a.wav"] * 4)
 
 
