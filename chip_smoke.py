@@ -17,6 +17,14 @@ Drives the port's main paths on ``cuda`` at full width (4 mics, 44.1 kHz,
    0.05 samples, position within 5 mm, ``significant`` equal); then the
    demo scene with ``analyze_correlation=False``, which takes the windowed
    fast path, held against ``tests/data/torch_sweep_golden.json``;
+4b. the options path of ``localize_sound_source``, cold and warm: both
+   scenes with the noise-null bootstrap (K6, no permutation) against the
+   slice golden, with the noise and permutation nulls of one pair held
+   within 5 % of each other and the bootstrap stage timed both ways;
+   SCOT + median + FIR + DBSCAN + robust LM; ``max_expected_delay=None``
+   (K1 at 131,072) + adaptive + Wiener + calibration delays; and
+   ``get_time_delays_phat`` at the exact length (K7) and at 65,536 (K4a +
+   K9) — these against ``tests/data/torch_options_golden.json``;
 5. the batched Monte-Carlo sweep at ``bench.py``'s ``bench_full_sweep``
    spec on 512 scenes: the fused path (K5) against the split path (K3 with
    noise, then K2) per scene on the same draws, the hit rate and median
@@ -46,6 +54,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 SLICE_GOLDEN = REPO / "tests" / "data" / "torch_slice_golden.json"
 SWEEP_GOLDEN = REPO / "tests" / "data" / "torch_sweep_golden.json"
+OPTIONS_GOLDEN = REPO / "tests" / "data" / "torch_options_golden.json"
 FS = 44100.0
 NFFT = 65536
 N = 44100
@@ -57,6 +66,8 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOP_S = 67e12
 CSRC = "pyaudiolocalization_tpu_torch/csrc/kernels.cu"
 PALLAS = "pyaudiolocalization_tpu/ops/pallas_fft.py"
+PALLAS_KERNELS = "pyaudiolocalization_tpu/ops/pallas_kernels.py"
+NULL_DRAWS = 1000
 
 # name -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -66,6 +77,9 @@ KERNELS = {
     "fft_real": (CSRC, f"{PALLAS}:685"),
     "bootstrap_peaks": (CSRC, f"{PALLAS}:1227"),
     "scene_windowed": (CSRC, f"{PALLAS}:1600"),
+    "noise_bootstrap_peaks": (CSRC, f"{PALLAS}:1326"),
+    "whiten": (CSRC, f"{PALLAS_KERNELS}:34"),
+    "whitened_corr": (CSRC, f"{PALLAS}:707"),
 }
 
 
@@ -218,11 +232,15 @@ def kernel_phase(cf, torch):
             results["delay_sum"] = res
 
     # K1: all-pairs GCC-PHAT, band (300, 3400) Hz.
-    for tag, (m, length, nfft) in {"main": (4, N, NFFT),
-                                   "edge": (3, 3000, 4096)}.items():
+    # "no_gate": the alias-free length of max_expected_delay=None, whitening
+    # every bin (the Wiener front end has no band).
+    for tag, (m, length, nfft, band) in {
+            "main": (4, N, NFFT, (300.0, 3400.0)),
+            "no_gate": (4, N, 2 * NFFT, None),
+            "edge": (3, 3000, 4096, (300.0, 3400.0))}.items():
         pi, pj = pairs(m)
         sig = randn(m, length).contiguous()
-        mask = cf.band_mask(nfft, (300.0, 3400.0), FS, device=dev)
+        mask = cf.band_mask(nfft, band, FS, device=dev)
         nbytes = 4 * (m * length + len(pi) * nfft + nfft // 2 + 1)
         res = compare(
             f"gcc_all_pairs[{tag}] M={m} P={len(pi)} nfft={nfft}",
@@ -279,6 +297,59 @@ def kernel_phase(cf, torch):
         if tag == "main":
             results["fft_real"] = res_a
             results["bootstrap_peaks"] = res_b
+
+    # K6: the noise null, 1000 draws of 44,100 samples (edge: an odd draw
+    # count and n_samp <= nfft/2, the TPU kernel's pruned shape).  Bound:
+    # K4b's transforms and whitening plus ~10 operations per uniform draw.
+    for tag, (rows_n, n_samp, nfft) in {"main": (NULL_DRAWS, N, NFFT),
+                                        "edge": (999, 1500, 4096)}.items():
+        s1 = cf.fft_real_plain(randn(1, n_samp), nfft)[0].contiguous()
+        seeds = torch.randint(-2 ** 31, 2 ** 31, (rows_n, 2), generator=gen,
+                              dtype=torch.int32, device=dev)
+        res = compare(
+            f"noise_bootstrap_peaks[{tag}] draws={rows_n} n_samp={n_samp} "
+            f"nfft={nfft}",
+            lambda: cf.noise_bootstrap_peaks(s1, seeds, n_samp, nfft),
+            lambda: cf.noise_bootstrap_peaks_plain(s1, seeds, n_samp, nfft),
+            tol=1e-6, reps=3,
+            least=bound(8 * (nfft // 2 + 1) + 8 * rows_n + 4 * rows_n,
+                        rows_n * (2 * _rfft_ops(nfft) + (nfft // 2) * 15
+                                  + 10 * n_samp)))
+        if tag == "main":
+            results["noise_bootstrap_peaks"] = res
+
+    # K7: PHAT whitening.  Main: the single pair at the exact length 88,199
+    # (44,100 bins); edge: three odd rows.  16 bytes a bin.
+    for tag, shape in {"main": (1, N), "edge": (3, 1025)}.items():
+        spec = torch.complex(randn(*shape), randn(*shape)).contiguous()
+        bins = spec.numel()
+        res = compare(
+            f"whiten[{tag}] shape={shape}",
+            lambda: cf.whiten(spec), lambda: cf.whiten_plain(spec),
+            tol=1e-6, reps=20, scale_by_max=True,
+            least=bound(16 * bins, 6 * bins),
+            library_fn=lambda: torch.sgn(spec))
+        if tag == "main":
+            results["whiten"] = res
+
+    # K9: whitened correlation of two K4a spectra, no band
+    # (phat_correlation).  Main: the single pair at nfft 65,536; edge:
+    # three row pairs.
+    for tag, (rows_n, length, nfft) in {"main": (1, N, NFFT),
+                                        "edge": (3, 3000, 4096)}.items():
+        spec = cf.fft_real_plain(randn(2 * rows_n, length), nfft)
+        a, b = spec[:rows_n].contiguous(), spec[rows_n:].contiguous()
+        mask = cf.band_mask(nfft, None, None, device=dev)
+        bins = nfft // 2 + 1
+        res = compare(
+            f"whitened_corr[{tag}] rows={rows_n} nfft={nfft}",
+            lambda: cf.whitened_corr(a, b, mask, nfft),
+            lambda: cf.whitened_corr_plain(a, b, mask, nfft),
+            tol=1e-6, reps=20,
+            least=bound(16 * rows_n * bins + 4 * bins + 4 * rows_n * nfft,
+                        rows_n * (_rfft_ops(nfft) + (nfft // 2) * 15)))
+        if tag == "main":
+            results["whitened_corr"] = res
 
     # K5: the whole scene.  Main: the sweep's 512 scenes; edge: out == nfft.
     for tag, (b, m, paths, total, out, nfft, wq) in {
@@ -408,6 +479,217 @@ def main_path_phase(cf, torch, slice_golden, sweep_golden, launches):
                          ("delay_sum", "gcc_windowed"),
                          ("gcc_all_pairs", "bootstrap_peaks"))
     _add(launches, counts)
+
+
+# ---------------------------------------------------------------------------
+# Phase 4b: the options path
+# ---------------------------------------------------------------------------
+
+def render(cfg, torch):
+    """The scene's mic signals on the card, as the physical path renders
+    them (float32)."""
+    from pyaudiolocalization_tpu_torch.models import acoustics
+    from pyaudiolocalization_tpu_torch.models.simulator import \
+        simulate_signals_fast
+    from pyaudiolocalization_tpu_torch.utils.config import SceneConfig
+    scene = SceneConfig.from_dict(cfg)
+    loc = scene.localization
+    c = acoustics.speed_of_sound_host(scene.celsius, scene.humidity)
+    return simulate_signals_fast(
+        scene.source_position, scene.mic_positions, scene.fs, c,
+        scene.duration, scene.signal_type, scene.freq, scene.plane_coeffs,
+        scene.plane_material_ids, scene.materials.absorption,
+        scene.materials.freq, loc.max_reflections, loc.absorption_threshold,
+        generator=torch.Generator(device="cuda").manual_seed(0),
+        dtype=torch.float32, device="cuda",
+        absorption_mode=scene.absorption_mode)
+
+
+def null_thresholds(cfg, pair, torch):
+    """(peak, noise-null threshold, permutation threshold) of one pair of
+    a scene, each null over 1000 draws at the path's transform length, on
+    the path's filtered signals."""
+    from pyaudiolocalization_tpu_torch import api
+    from pyaudiolocalization_tpu_torch.models import tdoa
+    from pyaudiolocalization_tpu_torch.ops import filters, gccphat
+    from pyaudiolocalization_tpu_torch.utils.config import SceneConfig
+    loc = SceneConfig.from_dict(cfg).localization
+    sigs = render(cfg, torch)
+    filtered = filters.noise_reduction(sigs, FS, method=loc.filter_method)
+    nfft = api._physical_nfft(sigs.shape[-1], FS, loc.max_expected_delay)
+    i, j = pair
+    corr = gccphat.gcc_phat_all_pairs(filtered, [i], [j], nfft=nfft,
+                                      band=api._resolve_phat_band(loc), fs=FS)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    thr = [float(tdoa.bootstrap_significance(
+        filtered[i], filtered[j], gen, NULL_DRAWS, bootstrap_mode=mode,
+        nfft=nfft)) for mode in ("noise", "permutation")]
+    return float(corr.max()), thr[0], thr[1]
+
+
+def bootstrap_stage(cfg, torch):
+    """Warm host time (synchronized) of the bootstrap stage of one call:
+    the six pairs' nulls in noise mode, in permutation mode, and the
+    permutation draws alone."""
+    from pyaudiolocalization_tpu_torch import api
+    from pyaudiolocalization_tpu_torch.models import tdoa
+    from pyaudiolocalization_tpu_torch.ops import filters
+    sigs = filters.noise_reduction(render(cfg, torch), FS)
+    nfft = api._physical_nfft(sigs.shape[-1], FS, 0.05)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    pairs = [(i, j) for i in range(4) for j in range(i + 1, 4)]
+
+    def nulls(mode):
+        return [tdoa.bootstrap_significance(sigs[i], sigs[j], gen,
+                                            NULL_DRAWS, bootstrap_mode=mode,
+                                            nfft=nfft) for i, j in pairs]
+
+    def draws():
+        return [tdoa.permuted_rows(sigs[j], NULL_DRAWS, gen)
+                for _, j in pairs]
+
+    for name, fn in (("noise nulls (K4a + K6)", lambda: nulls("noise")),
+                     ("permutation nulls (draws + K4a + K4b)",
+                      lambda: nulls("permutation")),
+                     ("permutation draws alone", draws)):
+        fn()
+        best = min(_wall(torch, fn)[1] for _ in range(3))
+        log(f"  bootstrap stage, 6 pairs x {NULL_DRAWS}: {name}: "
+            f"{best * 1e3:.3f} ms (best of 3, warm)")
+
+
+def options_phase(cf, torch, slice_golden, options_golden, launches):
+    """The physical-mode options of localize_sound_source at full width,
+    each case cold and warm with its own launch counts:
+
+    1. noise_null: the demo and off-centre scenes with the noise null (K6
+       in place of K4b), against the slice golden;
+    2. weighted: SCOT + median + FIR + DBSCAN + robust LM, no metrics;
+    3. no_gate: max_expected_delay=None (K1 at 131,072) + adaptive +
+       Wiener + calibration delays;
+    4. single_pair: get_time_delays_phat at the exact length (K7) and at
+       nfft 65,536 (K4a + K9);
+    cases 2-4 against tests/data/torch_options_golden.json."""
+    from pyaudiolocalization_tpu_torch import DEFAULT_CONFIG
+    from pyaudiolocalization_tpu_torch import api, localize_sound_source
+    from pyaudiolocalization_tpu_torch.models import tdoa
+    cases = options_golden["cases"]
+
+    def timed(cfg, **kw):
+        start = time.perf_counter()
+        res = localize_sound_source(cfg, device="cuda", dtype=torch.float32,
+                                    **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - start
+
+    # Each call's own thresholds, in pair order, as the timed run drew them.
+    null_fn = tdoa.bootstrap_significance
+    thresholds = []
+
+    def recorded_null(*args, **kw):
+        thresholds.append(null_fn(*args, **kw))
+        return thresholds[-1]
+
+    def noise_null():
+        out = {}
+        tdoa.bootstrap_significance = recorded_null
+        try:
+            for name, cfg in scene_configs(DEFAULT_CONFIG).items():
+                cfg["localization"]["bootstrap_mode"] = "noise"
+                for run in ("cold", "warm"):
+                    thresholds.clear()
+                    res, seconds = timed(cfg)
+                    check_scene(f"noise_null {name}", res,
+                                slice_golden["scenes"][name], seconds, run)
+                out[name] = (cfg, res, [float(t) for t in thresholds])
+        finally:
+            tdoa.bootstrap_significance = null_fn
+        return out
+
+    runs, counts = run_path(
+        cf, "options path 1 (noise_null)", noise_null,
+        ("delay_sum", "gcc_all_pairs", "fft_real", "noise_bootstrap_peaks"),
+        ("bootstrap_peaks",))
+    _add(launches, counts)
+    # The null does not move the TDOAs or the fix; it decides
+    # 'significant', which may differ from the golden (a permutation null
+    # on another machine) only where the peak lies within 5 % of the
+    # threshold that the warm run drew.
+    for name, (cfg, res, thr) in runs.items():
+        want = slice_golden["scenes"][name]
+        pairs = list(res["correlation_metrics"])
+        if [list(p) for p in pairs] != want["pairs"] or len(thr) != len(pairs):
+            raise AssertionError(f"noise_null {name}: pairs {pairs}, "
+                                 f"{len(thr)} thresholds")
+        for pair, sig, t in zip(pairs, want["significant"], thr):
+            got = res["correlation_metrics"][pair]["significant"]
+            if got == sig:
+                continue
+            peak = float(res["correlation_matrix"][pair])
+            log(f"noise_null {name} pair {pair}: significant {got} vs "
+                f"golden {sig}; peak {peak:.6f}, the run's noise null "
+                f"{t:.6f}")
+            if abs(peak - t) > 0.05 * t:
+                raise AssertionError(f"noise_null {name} pair {pair}: "
+                                     "significant departs from the golden "
+                                     "away from the threshold")
+    peak, thr_noise, thr_perm = null_thresholds(
+        runs["off_centre"][0], (0, 1), torch)
+    gap = abs(thr_noise - thr_perm) / thr_perm
+    log(f"noise_null off_centre pair (0, 1): peak {peak:.6f}, noise null "
+        f"{thr_noise:.6f}, permutation null {thr_perm:.6f} "
+        f"({100 * gap:.2f} % apart, {NULL_DRAWS} draws each)")
+    if gap > 0.05:
+        raise AssertionError("the noise null departs from the permutation "
+                             "null by more than 5 %")
+    bootstrap_stage(runs["off_centre"][0], torch)
+
+    def golden_case(name, expect, forbid=()):
+        case = cases[name]
+        calib = case.get("calibration_data")
+
+        def run():
+            for run_name in ("cold", "warm"):
+                res, seconds = timed(case["config"], calibration_data=calib)
+                check_scene(name, res, case, seconds, run_name)
+
+        _, counts = run_path(cf, f"options path ({name})", run, expect,
+                             forbid)
+        _add(launches, counts)
+
+    golden_case("weighted", ("delay_sum",), ("gcc_all_pairs", "gcc_windowed"))
+    if api._physical_nfft(N, FS, None) != 2 * NFFT:
+        raise AssertionError("max_expected_delay=None misses the 131,072 "
+                             "transform")
+    golden_case("no_gate", ("delay_sum", "gcc_all_pairs", "fft_real",
+                            "bootstrap_peaks"),
+                ("gcc_windowed", "noise_bootstrap_peaks"))
+
+    for scene, case in cases["single_pair"].items():
+        sigs = render(case["config"], torch)
+        for nfft, expect in ((None, ("whiten",)),
+                             (NFFT, ("fft_real", "whitened_corr"))):
+            want = case["delays"][f"nfft_{nfft or 'exact'}"]
+
+            def run():
+                for run_name in ("cold", "warm"):
+                    start = time.perf_counter()
+                    got = float(tdoa.get_time_delays_phat(
+                        sigs[0], sigs[1], FS, lag_mode="physical",
+                        nfft=nfft).delays[0])
+                    seconds = time.perf_counter() - start
+                    log(f"single_pair {scene} nfft={nfft or 'exact'} "
+                        f"{run_name}: {seconds:.4f} s, delay {got * FS:.3f} "
+                        f"samples (golden {want * FS:.3f})")
+                    if abs(got - want) * FS > 0.05:
+                        raise AssertionError(f"single_pair {scene}: {got} "
+                                             f"vs golden {want}")
+
+            _, counts = run_path(
+                cf, f"options path (single_pair {scene} nfft="
+                f"{nfft or 'exact'})", run, expect,
+                ("gcc_all_pairs",))
+            _add(launches, counts)
 
 
 def _add(total, counts):
@@ -590,6 +872,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     slice_golden = json.loads(SLICE_GOLDEN.read_text())
     sweep_golden = json.loads(SWEEP_GOLDEN.read_text())
+    options_golden = json.loads(OPTIONS_GOLDEN.read_text())
 
     # Phase 1: device.
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -610,9 +893,10 @@ def main() -> int:
     # Phase 3: kernels against their plain versions.
     results = kernel_phase(cf, torch)
 
-    # Phases 4 and 5: the main paths, each with its own launch counts.
+    # Phases 4, 4b and 5: the main paths, each with its own launch counts.
     launches = {name: 0 for name in KERNELS}
     main_path_phase(cf, torch, slice_golden, sweep_golden, launches)
+    options_phase(cf, torch, slice_golden, options_golden, launches)
     sweep_phase(cf, torch, sweep_golden, launches)
     log(f"launches over the main paths: {launches}")
     missing = [k for k in KERNELS if launches.get(k, 0) == 0]

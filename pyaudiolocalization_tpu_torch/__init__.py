@@ -2,11 +2,13 @@
 pyaudiolocalization_tpu for NVIDIA Hopper.
 
 The package mirrors the JAX package's ``ops/ models/ utils/`` layout and
-function names; it imports torch and numpy and never jax.  This slice
-ports the physical-mode localization path
-(``lag_mode='physical'``, ``sync_mode='none'``) with its four hand-written
-CUDA kernels (ops/cuda_fft.py); every other mode raises
-``NotImplementedError``.
+function names; it imports torch and numpy and never jax.  Ported so far:
+the physical-mode localization path (``lag_mode='physical'``,
+``sync_mode='none'``) with its options (front ends, weightings, ladders,
+bootstrap nulls, clustering, robust LM, the DE fallback, calibration
+delays), its windowed fast path, and the batched Monte-Carlo sweep
+(``parallel/``), over nine hand-written CUDA kernels (ops/cuda_fft.py).
+Every other mode raises ``NotImplementedError``.
 """
 
 from .api import localize_sound_source  # noqa: F401

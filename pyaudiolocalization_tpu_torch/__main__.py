@@ -56,9 +56,9 @@ def main(argv=None) -> int:
         raise SystemExit(
             "this port runs only the physical-mode path without calibration "
             "or plots so far: pass --physical --no-calibration --no-plots")
-    if args.solver not in (None, "lm"):
+    if args.solver not in (None, "lm", "lm-robust"):
         raise SystemExit(f"--solver {args.solver} is not ported yet; only "
-                         "'lm' runs")
+                         "'lm' and 'lm-robust' run")
     device = _device(args.device)
 
     logging.basicConfig(level=logging.INFO,
@@ -67,6 +67,8 @@ def main(argv=None) -> int:
     config["seed"] = args.seed
     config["localization"]["lag_mode"] = "physical"
     config["localization"]["sync_mode"] = "none"
+    if args.solver:
+        config["localization"]["solver"] = args.solver
 
     result = localize_sound_source(config, use_simulation=True,
                                    show_plots=False, device=device,

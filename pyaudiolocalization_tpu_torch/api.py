@@ -1,10 +1,16 @@
 """Public API: ``localize_sound_source`` for the physical-mode path
 (counterpart of the JAX package's api.py; reference: main.py:126-333).
 
-Ported: ``lag_mode='physical'`` with ``sync_mode='none'``, the Butterworth
-front end, band-limited PHAT, the 'gaussian' TDOA ladder, the permutation
-bootstrap (``analyze_correlation``), the clustered multi-start LM and the
-Gauss-Markov uncertainty.  Every other mode raises ``NotImplementedError``.
+Ported: ``lag_mode='physical'`` with ``sync_mode='none'`` and its
+options — the Butterworth, FIR and Wiener front ends; PHAT (band-limited
+or not), SCOT, Roth and CC weightings; the 'gaussian', 'median' and
+'adaptive' TDOA ladders, with a ``max_expected_delay`` window or without
+one; the permutation, block, circular and noise bootstrap nulls
+(``analyze_correlation``); k-means or DBSCAN initial guesses; the
+multi-start LM, plain or robust ('lm-robust'), with the differential-
+evolution fallback; calibration delays behind their SNR gate; and the
+Gauss-Markov uncertainty.  Parity mode, the pre-sync, the grid and
+narrowband solvers, audio files and plots raise ``NotImplementedError``.
 
 Two estimation cores, dispatched as the JAX package dispatches them
 (api.py:717-728 there): the windowed fast core (``_estimation_core_fast``:
@@ -38,43 +44,91 @@ from .ops import cuda_fft
 from .ops import filters as filter_ops
 from .ops import gccphat
 from .ops.fftutils import fft_length
+from .models.calibration import CALIBRATION_SNR_GATE
 from .utils.config import LocalizationConfig, SceneConfig
 from .utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
 _LATER = "(not ported yet; a later slice of the PyTorch port brings it)"
+_SOLVERS = ("lm", "lm-robust", "srp", "srp+lm", "beam", "music", "capon")
 
 
 def _check_supported(loc: LocalizationConfig, use_simulation: bool,
-                     signals, calibration_data, show_plots: bool) -> None:
-    """Raise NotImplementedError for every mode outside this slice."""
+                     signals, show_plots: bool) -> None:
+    """The JAX package's ValueErrors (api.py:549-565 there), then
+    NotImplementedError for every mode the port does not run yet."""
+    if loc.solver not in _SOLVERS:
+        raise ValueError(f"Unknown solver {loc.solver!r}; expected one of "
+                         f"{_SOLVERS}")
+    if loc.solver != "lm" and loc.lag_mode == "reference":
+        raise ValueError(
+            "solver overrides are physical-mode extensions; reference-parity "
+            "mode (lag_mode='reference') keeps the reference's LM -> DE "
+            "chain (main.py:261-298)")
+    if loc.gcc_weighting not in ("phat", "scot", "roth", "cc"):
+        raise ValueError(
+            f"Unknown gcc_weighting {loc.gcc_weighting!r}; the batch API "
+            "supports 'phat', 'scot', 'roth', 'cc' ('ml' needs Welch-"
+            "averaged spectra — use ops.gccphat.gcc_phat_streaming)")
+    if loc.gcc_weighting != "phat" and loc.lag_mode == "reference":
+        raise ValueError(
+            "gcc_weighting is a physical-mode extension; reference-parity "
+            "mode keeps PHAT (utils.py:116)")
     unsupported = [
         (loc.lag_mode != "physical",
          f"lag_mode={loc.lag_mode!r}: reference-parity mode {_LATER}"),
         (loc.sync_mode != "none",
          f"sync_mode={loc.sync_mode!r}: the reference pre-sync {_LATER}"),
-        (loc.solver != "lm", f"solver={loc.solver!r} {_LATER}"),
-        (loc.gcc_weighting != "phat",
-         f"gcc_weighting={loc.gcc_weighting!r} {_LATER}"),
-        (loc.bootstrap_mode != "permutation",
-         f"bootstrap_mode={loc.bootstrap_mode!r} {_LATER}"),
-        (loc.filter_method != "butterworth",
-         f"filter_method={loc.filter_method!r} {_LATER}"),
-        (loc.clustering_method != "kmeans",
-         f"clustering_method={loc.clustering_method!r} {_LATER}"),
-        (loc.max_expected_delay is None,
-         f"max_expected_delay=None (the whole-row argmax ladder) {_LATER}"),
-        (_resolve_threshold(loc) != "gaussian",
-         f"threshold_method={loc.threshold_method!r} {_LATER}"),
+        (loc.solver not in ("lm", "lm-robust"),
+         f"solver={loc.solver!r} {_LATER}"),
         (not use_simulation and signals is None,
          f"use_simulation=False (audio files) {_LATER}"),
-        (calibration_data is not None, f"calibration_data {_LATER}"),
         (show_plots, f"show_plots=True: plotting {_LATER}"),
     ]
     for bad, message in unsupported:
         if bad:
             raise NotImplementedError(message)
+
+
+def _calibration_delays(calibration_data, num_mics: int,
+                        lag_mode: str) -> Optional[np.ndarray]:
+    """The per-mic calibration delays (main.py:147-157), or None when there
+    are none, their count is wrong, or — in physical mode, when every entry
+    carries the correlation-peak 'snr' — the worst SNR is below the
+    quality gate (a noise-dominated calibration gives random delays)."""
+    if calibration_data is None:
+        return None
+    if len(calibration_data) != num_mics:
+        logger.warning(
+            "Number of calibration entries does not match the number of "
+            "microphones. Ignoring calibration for this run.")
+        return None
+    try:
+        delays = np.array([d.get("delay", 0.0) for d in calibration_data],
+                          float)
+        logger.info("Applying calibration correction.")
+    except Exception as e:  # matches main.py:155-157
+        logger.warning("Error processing calibration data: %s. Ignoring "
+                       "calibration.", e)
+        return None
+    if lag_mode == "physical" and all("snr" in d for d in calibration_data):
+        worst = min(float(d["snr"]) for d in calibration_data)
+        if worst < CALIBRATION_SNR_GATE:
+            logger.warning(
+                "Calibration correlation-peak SNR %.1f below the quality "
+                "gate %.1f (noise-dominated recording); ignoring "
+                "calibration in physical mode.", worst, CALIBRATION_SNR_GATE)
+            return None
+    return delays
+
+
+def _calibrated(td: torch.Tensor, calib: Optional[torch.Tensor], pairs_i,
+                pairs_j) -> torch.Tensor:
+    """td_p - (delay_j - delay_i): each mic's calibration delay removed."""
+    if calib is None:
+        return td
+    return td - (calib[list(pairs_j)] - calib[list(pairs_i)])
 
 
 def _resolve_threshold(loc: LocalizationConfig) -> str:
@@ -95,11 +149,15 @@ def _resolve_phat_band(loc: LocalizationConfig):
     return tuple(band) if band is not None else None
 
 
-def _physical_nfft(n: int, fs: float, max_expected_delay: float) -> int:
+def _physical_nfft(n: int, fs: float,
+                   max_expected_delay: Optional[float]) -> int:
     """Circular next_pow2(n) transform when the consulted lag window (the
     max_expected_delay gate plus the ladder's dilation) is alias-free,
-    else the alias-free next_pow2(2n-1) (api.py:697-713 of the JAX
+    else — and always for max_expected_delay=None, whose ladder consults
+    every lag — the alias-free next_pow2(2n-1) (api.py:697-713 of the JAX
     package)."""
+    if max_expected_delay is None:
+        return fft_length(n, n, "pow2")
     nfft = fft_length(n, n, "circular")
     dilation = 8 * max(int(fs * 0.001), 1)
     needed = int(np.ceil(max_expected_delay * fs)) + dilation + 1
@@ -109,11 +167,12 @@ def _physical_nfft(n: int, fs: float, max_expected_delay: float) -> int:
 
 
 def _estimation_core(signals: torch.Tensor, mic_positions: torch.Tensor,
-                     c: float, generator: Optional[torch.Generator], *,
-                     fs: float, pairs_i, pairs_j, nfft: int,
+                     c: float, generator: Optional[torch.Generator],
+                     calib: Optional[torch.Tensor], *, fs: float, pairs_i,
+                     pairs_j, nfft: int,
                      loc: LocalizationConfig) -> Dict[str, torch.Tensor]:
-    """Filter -> all-pairs GCC-PHAT -> TDOA ladder -> (metrics) -> clustered
-    multi-start LM."""
+    """Filter -> all-pairs GCC -> TDOA ladder -> (metrics) -> clustered
+    multi-start LM (plain or robust)."""
     n = signals.shape[-1]
     num_mics = mic_positions.shape[0]
     pi = torch.as_tensor(pairs_i, dtype=torch.long, device=signals.device)
@@ -122,13 +181,14 @@ def _estimation_core(signals: torch.Tensor, mic_positions: torch.Tensor,
     filtered = filter_ops.noise_reduction(signals, fs,
                                           method=loc.filter_method)
     corr = gccphat.gcc_phat_all_pairs(filtered, pairs_i, pairs_j, nfft=nfft,
-                                      band=_resolve_phat_band(loc), fs=fs)
+                                      band=_resolve_phat_band(loc), fs=fs,
+                                      weighting=loc.gcc_weighting)
     res = tdoa_ops.time_delays_from_corr(
         corr, n, n, fs, num_peaks=1, threshold_method=_resolve_threshold(loc),
         max_expected_delay=loc.max_expected_delay, lag_mode=loc.lag_mode)
     measured = res.delays[..., 0]
     # Physical convention: td = arrival_j - arrival_i = -(peak lag)/fs.
-    td = -measured
+    td = _calibrated(-measured, calib, pairs_i, pairs_j)
 
     peak_corr = torch.amax(corr, -1)
     corr_matrix = torch.zeros((num_mics, num_mics), dtype=corr.dtype,
@@ -178,21 +238,26 @@ def _fast_path_eligible(loc: LocalizationConfig, nfft: int, dtype,
 
 def _solve(mic_positions, c, generator, pairs_i, pairs_j, td, weights,
            loc: LocalizationConfig) -> Dict[str, torch.Tensor]:
-    """Clustered initial guesses -> bounds -> multi-start LM."""
+    """Clustered initial guesses -> bounds -> multi-start LM ('lm') or its
+    leave-k-out consensus ('lm-robust')."""
     guesses, _ = solver_ops.heuristic_initial_guesses(
         mic_positions, pairs_i, pairs_j, td, c, generator,
-        clustering_method=loc.clustering_method)
+        clustering_method=loc.clustering_method, eps=loc.clustering_eps,
+        min_samples=loc.clustering_min_samples)
     lower, upper = solver_ops.dynamic_bounds(mic_positions, td, c)
     guesses = torch.clamp(guesses, lower[None, :], upper[None, :])
-    best = solver_ops.multi_start_lm(guesses, mic_positions, pairs_i,
-                                     pairs_j, td, c, weights, lower, upper)
+    solve = (solver_ops.multi_start_lm_robust if loc.solver == "lm-robust"
+             else solver_ops.multi_start_lm)
+    best = solve(guesses, mic_positions, pairs_i, pairs_j, td, c, weights,
+                 lower, upper)
     return dict(estimated_position=best.x, cost=best.cost, weights=weights,
                 lower=lower, upper=upper, initial_guesses=guesses)
 
 
 def _estimation_core_fast(signals: torch.Tensor, mic_positions: torch.Tensor,
-                          c: float, generator: Optional[torch.Generator], *,
-                          fs: float, pairs_i, pairs_j, nfft: int, wq: int,
+                          c: float, generator: Optional[torch.Generator],
+                          calib: Optional[torch.Tensor], *, fs: float,
+                          pairs_i, pairs_j, nfft: int, wq: int,
                           loc: LocalizationConfig
                           ) -> Dict[str, torch.Tensor]:
     """Windowed core (api.py:337-417 of the JAX package): K2 returns only
@@ -213,13 +278,45 @@ def _estimation_core_fast(signals: torch.Tensor, mic_positions: torch.Tensor,
                                        pairs_j, nfft, wq, mask)
     measured = tdoa_ops.tdoa_single_from_window(
         win, stats, wq, nfft, fs, loc.max_expected_delay)
-    td = -measured                       # physical convention (full core)
+    td = _calibrated(-measured, calib, pairs_i, pairs_j)   # as the full core
     weights = torch.ones(len(pairs_i), dtype=signals.dtype,
                          device=signals.device)
     out = {"tdoas": td, "measured_delays": measured}
     out.update(_solve(mic_positions, c, generator, pairs_i, pairs_j, td,
                       weights, loc))
     return out
+
+
+def _de_fallback(core, mic_positions: torch.Tensor, c: float,
+                 generator: Optional[torch.Generator], pairs_i,
+                 pairs_j) -> np.ndarray:
+    """Differential evolution over the LM bounds with an L-BFGS-B polish
+    (main.py:276-298; physical mode's tol=1e-6), used when the LM returned
+    no finite cost; the first initial guess when DE fails too."""
+    logger.warning("Least-squares failed, trying differential evolution.")
+    td, weights = core["tdoas"], core["weights"]
+    lower, upper = core["lower"], core["upper"]
+
+    def objective(x):
+        r = solver_ops.tdoa_residuals(x, mic_positions, pairs_i, pairs_j,
+                                      td, c, weights)
+        return torch.sum(r * r, -1)
+
+    def polish(x):
+        res = solver_ops.lbfgsb_minimize(objective, x, lower, upper)
+        return res.x, res.fun
+
+    de = solver_ops.differential_evolution(objective, lower, upper,
+                                           generator, tol=1e-6,
+                                           polish_fn=polish)
+    if np.isfinite(float(de.energy)):
+        estimated = de.x.double().cpu().numpy()
+        logger.info("Estimated source (differential evolution): %s",
+                    estimated)
+        return estimated
+    logger.error("Differential evolution failed. Falling back to the first "
+                 "initial guess.")
+    return core["initial_guesses"][0].double().cpu().numpy()
 
 
 def localize_sound_source(config,
@@ -249,8 +346,7 @@ def localize_sound_source(config,
     scene = (config if isinstance(config, SceneConfig)
              else SceneConfig.from_dict(config))
     loc = scene.localization
-    _check_supported(loc, use_simulation, signals, calibration_data,
-                     show_plots)
+    _check_supported(loc, use_simulation, signals, show_plots)
     dev = resolve_device(device)
     dt = dtype if dtype is not None else torch.get_default_dtype()
     if generator is None:
@@ -290,14 +386,17 @@ def localize_sound_source(config,
     n = sigs.shape[-1]
     nfft = _physical_nfft(n, fs, loc.max_expected_delay)
     mics_t = torch.as_tensor(mic_positions, dtype=dt, device=dev)
+    calib = _calibration_delays(calibration_data, num_mics, loc.lag_mode)
+    calib_t = (None if calib is None
+               else torch.as_tensor(calib, dtype=dt, device=dev))
     if _fast_path_eligible(loc, nfft, sigs.dtype, fs):
         core = _estimation_core_fast(
-            sigs, mics_t, c, generator, fs=fs, pairs_i=pairs_i,
+            sigs, mics_t, c, generator, calib_t, fs=fs, pairs_i=pairs_i,
             pairs_j=pairs_j, nfft=nfft,
             wq=tdoa_ops.window_wq(fs, loc.max_expected_delay, nfft),
             loc=loc)
     else:
-        core = _estimation_core(sigs, mics_t, c, generator, fs=fs,
+        core = _estimation_core(sigs, mics_t, c, generator, calib_t, fs=fs,
                                 pairs_i=pairs_i, pairs_j=pairs_j, nfft=nfft,
                                 loc=loc)
 
@@ -307,11 +406,12 @@ def localize_sound_source(config,
     for (i, j), td in zip(pairs, td_np):
         logger.info("Time difference for mic pair %d-%d: %.6f s", i + 1,
                     j + 1, td)
-    if not np.isfinite(cost):
-        raise NotImplementedError(
-            "least squares returned no finite solution; the differential-"
-            f"evolution fallback {_LATER}")
-    logger.info("Estimated source: (%.3f, %.3f, %.3f) m", *estimated)
+    fallback_used = not np.isfinite(cost)
+    if fallback_used:
+        estimated = _de_fallback(core, mics_t, c, generator, pairs_i,
+                                 pairs_j)
+    else:
+        logger.info("Estimated source: (%.3f, %.3f, %.3f) m", *estimated)
 
     snr_np = (core["snr"].double().cpu().numpy()
               if loc.analyze_correlation else None)
@@ -320,7 +420,9 @@ def localize_sound_source(config,
     uncertainty = uncertainty_ops.position_uncertainty(
         estimated, mic_positions, pairs_i, pairs_j, td_np, c, weights=w_np)
     if uncertainty is not None:
-        uncertainty["heuristic"] = False
+        # Gauss-Markov assumes a stationary point of the LM cost; the
+        # fallback's fix is only approximately one.
+        uncertainty["heuristic"] = fallback_used
         logger.info("Position 1-sigma (x,y,z): (%.4f, %.4f, %.4f) m",
                     *uncertainty["std"])
 

@@ -55,14 +55,15 @@ inline int pass_blocks(int n) {
 
 // Transforms `rows` rows of length n held in buf0; returns the buffer
 // (buf0 or buf1) that holds the result.  `passes` < log2(n) stops early
-// (the caller fuses the last pass into its epilogue).
+// (the caller fuses the last pass into its epilogue); `p0` > 1 starts
+// after passes the caller fused into its prologue.
 inline float2* fft_rows(float2* buf0, float2* buf1, const float2* tw, int n,
                         int rows, int inverse, int passes,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, int p0 = 1) {
   float2* src = buf0;
   float2* dst = buf1;
   int done = 0;
-  for (int p = 1; p < n && done < passes; p <<= 1, ++done) {
+  for (int p = p0; p < n && done < passes; p <<= 1, ++done) {
     dim3 grid(pass_blocks(n), rows);
     stockham_pass<<<grid, kThreads, 0, stream>>>(src, dst, tw, n, p, inverse);
     float2* t = src;

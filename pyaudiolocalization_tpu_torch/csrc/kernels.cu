@@ -339,6 +339,94 @@ __global__ void last_pass_max(const float2* __restrict__ in,
   }
 }
 
+// ---- K6: noise-null bootstrap peaks --------------------------------------
+
+// Point t of packed row (draw a) + i*(draw b): for t < n_samp the uniform
+// [-0.5, 0.5) sample t of each draw's Philox stream (key = the draw's two
+// seed words as uint32, counter = t); zero from n_samp on.
+__device__ __forceinline__ float2 noise_point(int t, int n_samp, bool two,
+                                              uint32_t a0, uint32_t a1,
+                                              uint32_t b0, uint32_t b1) {
+  if (t >= n_samp) return make_float2(0.0f, 0.0f);
+  return make_float2(palt::philox_uniform((uint32_t)t, a0, a1),
+                     two ? palt::philox_uniform((uint32_t)t, b0, b1) : 0.0f);
+}
+
+// The first forward Stockham pass (p = 1, twiddle 1: y[2i] = x[i] +
+// x[i + n/2], y[2i + 1] = their difference) over packed row c = draws 2c
+// and 2c+1, with both points drawn instead of read.  This replaces K4b's
+// row load: the rows never exist in device memory; the only input is the
+// seeds.  Past n_samp the second point is zero and the butterfly copies.
+__global__ void noise_first_pass(const int* __restrict__ seeds, int rows,
+                                 int n_samp, int n, float2* __restrict__ z) {
+  const int c = blockIdx.y;
+  const int ra = 2 * c;
+  const int rb = 2 * c + 1;
+  const bool two = rb < rows;
+  const uint32_t a0 = (uint32_t)seeds[2 * ra];
+  const uint32_t a1 = (uint32_t)seeds[2 * ra + 1];
+  const uint32_t b0 = two ? (uint32_t)seeds[2 * rb] : 0u;
+  const uint32_t b1 = two ? (uint32_t)seeds[2 * rb + 1] : 0u;
+  const int half = n >> 1;
+  float2* y = z + (size_t)c * (size_t)n;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < half;
+       i += gridDim.x * blockDim.x) {
+    const float2 u = noise_point(i, n_samp, two, a0, a1, b0, b1);
+    const float2 v = noise_point(i + half, n_samp, two, a0, a1, b0, b1);
+    y[2 * i] = make_float2(u.x + v.x, u.y + v.y);
+    y[2 * i + 1] = make_float2(u.x - v.x, u.y - v.y);
+  }
+}
+
+// ---- K7: PHAT whitening of complex spectra -------------------------------
+
+// z / (|z| + eps) over interleaved complex64, in the TPU kernel's order
+// (ops/pallas_kernels.py:26-31): inv = 1 / (sqrt(re^2 + im^2) + eps), then
+// both parts times inv.  The squares and their sum are rounded separately
+// (no fused multiply-add), as the plain float32 expression rounds them.
+// in == out is allowed.
+__global__ void whiten_bins(const float2* in, long long count, float eps,
+                            float2* out) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < count; i += (long long)gridDim.x * blockDim.x) {
+    const float2 z = in[i];
+    const float mag2 = __fadd_rn(__fmul_rn(z.x, z.x), __fmul_rn(z.y, z.y));
+    const float inv = 1.0f / (sqrtf(mag2) + eps);
+    out[i] = make_float2(z.x * inv, z.y * inv);
+  }
+}
+
+// ---- K9: whitened correlation of two spectra -----------------------------
+
+// Packed row c holds rows 2c and 2c+1 of whiten(a * conj(b)) * band over
+// bins 0..n/2 of natural-order half spectra (n/2 + 1 bins a row), mirrored
+// into the packed Hermitian row by store_packed.
+__global__ void corr_cross(const float2* __restrict__ a,
+                           const float2* __restrict__ b, int rows,
+                           const float* __restrict__ band, float eps, int n,
+                           float2* __restrict__ z) {
+  const int c = blockIdx.y;
+  const int r0 = 2 * c;
+  const int r1 = 2 * c + 1;
+  const int half = n >> 1;
+  const size_t bins = (size_t)half + 1;
+  float2* row = z + (size_t)c * (size_t)n;
+  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k <= half;
+       k += gridDim.x * blockDim.x) {
+    const float bk = band[k];
+    const size_t i0 = (size_t)r0 * bins + k;
+    float2 w0 = whiten(a[i0], b[i0], eps);
+    w0 = make_float2(w0.x * bk, w0.y * bk);
+    float2 w1 = make_float2(0.0f, 0.0f);
+    if (r1 < rows) {
+      const size_t i1 = i0 + bins;
+      w1 = whiten(a[i1], b[i1], eps);
+      w1 = make_float2(w1.x * bk, w1.y * bk);
+    }
+    store_packed(row, k, n, w0, w1);
+  }
+}
+
 // ---- K3: multipath render ------------------------------------------------
 
 // H_m(k) = sum_p g_mp exp(-2*pi*i*k*tau_mp/n), tau in samples.  The phase
@@ -498,6 +586,25 @@ void window_stage(const float2* spec, int scenes, int mics,
                                                 1.0f / (float)n, win, stats);
 }
 
+// K4b's and K6's pipeline after buf0 holds the rows (packed two to a
+// complex row) with their first `done` forward passes applied: the other
+// forward passes, whitening against s1 in place, the packed inverse with
+// its last pass fused with the row maxima.
+void boot_stage(const float2* s1, int rows, int n, float eps, int done,
+                const float2* tw, float2* buf0, float2* buf1, float* out,
+                cudaStream_t s) {
+  const int packed = (rows + 1) / 2;
+  const int passes = log2_int(n);
+  float2* spec = fft_rows(buf0, buf1, tw, n, packed, 0, passes - done, s,
+                          1 << done);
+  boot_whiten<<<dim3(bin_blocks(n), packed), kThreads, 0, s>>>(s1, eps, n,
+                                                                spec);
+  float2* other = spec == buf0 ? buf1 : buf0;
+  float2* part = fft_rows(spec, other, tw, n, packed, 1, passes - 1, s);
+  last_pass_max<<<packed, kRowThreads, 0, s>>>(part, tw, n, rows,
+                                               1.0f / (float)n, out);
+}
+
 }  // namespace
 
 #define PALT_CHECK()                          \
@@ -576,20 +683,58 @@ int palt_bootstrap_peaks(const float2* s1, const float* x, int rows, int len,
                          float2* buf1, float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int packed = (rows + 1) / 2;
-  const int passes = log2_int(n);
   pack_rows<<<dim3(palt::pass_blocks(n), packed), kThreads, 0, s>>>(
       x, rows, len, len, n, buf0);
   PALT_CHECK();
-  float2* spec = fft_rows(buf0, buf1, tw, n, packed, 0, passes, s);
+  boot_stage(s1, rows, n, eps, 0, tw, buf0, buf1, out, s);
   PALT_CHECK();
-  boot_whiten<<<dim3(bin_blocks(n), packed), kThreads, 0, s>>>(s1, eps, n,
-                                                                spec);
+  return 0;
+}
+
+// K6: s1 (n/2+1) complex, seeds (rows, 2) int32 -> out (rows,) maxima of
+// the PHAT correlations between s1's signal and `rows` in-kernel uniform
+// noise draws of n_samp samples each, zero-padded to n.
+int palt_noise_bootstrap_peaks(const float2* s1, const int* seeds, int rows,
+                               int n_samp, int n, float eps,
+                               const float2* tw, float2* buf0, float2* buf1,
+                               float* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int packed = (rows + 1) / 2;
+  noise_first_pass<<<dim3(palt::pass_blocks(n), packed), kThreads, 0, s>>>(
+      seeds, rows, n_samp, n, buf0);
   PALT_CHECK();
-  float2* other = spec == buf0 ? buf1 : buf0;
-  float2* part = fft_rows(spec, other, tw, n, packed, 1, passes - 1, s);
+  boot_stage(s1, rows, n, eps, 1, tw, buf0, buf1, out, s);
   PALT_CHECK();
-  last_pass_max<<<packed, kRowThreads, 0, s>>>(part, tw, n, rows,
-                                               1.0f / (float)n, out);
+  return 0;
+}
+
+// K7: z (count) complex -> out (count) = z / (|z| + eps); out may be z.
+int palt_whiten(const float2* z, long long count, float eps, float2* out,
+                void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  long long blocks = (count + kThreads - 1) / kThreads;
+  if (blocks > 4096) blocks = 4096;
+  if (blocks < 1) blocks = 1;
+  whiten_bins<<<(int)blocks, kThreads, 0, s>>>(z, count, eps, out);
+  PALT_CHECK();
+  return 0;
+}
+
+// K9: a, b (rows, n/2+1) complex natural-order spectra, band (n/2+1) ->
+// out (rows, n) circular correlations of whiten(a * conj(b)) * band,
+// scaled by 1/n (K1's back half with arbitrary row pairs).
+int palt_whitened_corr(const float2* a, const float2* b, int rows, int n,
+                       const float* band, float eps, const float2* tw,
+                       float2* z0, float2* z1, float* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int couples = (rows + 1) / 2;
+  corr_cross<<<dim3(bin_blocks(n), couples), kThreads, 0, s>>>(
+      a, b, rows, band, eps, n, z0);
+  PALT_CHECK();
+  float2* corr = fft_rows(z0, z1, tw, n, couples, 1, log2_int(n), s);
+  PALT_CHECK();
+  split_pairs<<<dim3(palt::pass_blocks(n), couples), kThreads, 0, s>>>(
+      corr, rows, n, 1.0f / (float)n, out);
   PALT_CHECK();
   return 0;
 }

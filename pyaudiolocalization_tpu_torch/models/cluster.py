@@ -6,8 +6,7 @@ B independent problems solved in one batched run (the JAX package's
 ``vmap`` written out); unbatched (n, d) calls run the same code with B = 1.
 k-means++ seeding draws from an explicit ``torch.Generator``; callers that
 must reproduce another implementation's draws pass the chosen seed indices
-instead (``seed_indices``, (k,) or (B, k)).  DBSCAN belongs to a later
-slice.
+instead (``seed_indices``, (k,) or (B, k)).  DBSCAN is deterministic.
 """
 
 from __future__ import annotations
@@ -154,3 +153,43 @@ def kmeans_multi(x: torch.Tensor, max_k: int,
     inertia = torch.sum(torch.where(valid[:, None, :], torch.amin(d2, -1),
                                     torch.zeros_like(d2[..., 0])), -1)
     return KMeansMultiResult(centers, labels, inertia)
+
+
+class DbscanResult(NamedTuple):
+    labels: torch.Tensor        # (..., n) cluster id, -1 for noise
+    num_clusters: torch.Tensor  # (...)
+
+
+def dbscan(x: torch.Tensor, eps: float, min_samples: int,
+           valid: Optional[torch.Tensor] = None) -> DbscanResult:
+    """sklearn's DBSCAN cluster structure over (..., n, d) points: core
+    points have >= min_samples neighbours within eps (self included),
+    clusters are the components of the core eps-graph (n rounds of
+    min-label propagation), a border point joins the lowest-labelled
+    adjacent core's cluster, noise is -1; labels renumbered by first
+    occurrence."""
+    if x.dim() == 2:
+        res = dbscan(x[None], eps, min_samples,
+                     None if valid is None else valid[None])
+        return DbscanResult(res.labels[0], res.num_clusters[0])
+    n = x.shape[1]
+    valid = _ones_valid(x, valid)
+    adj = ((_pairwise_dist(x) <= eps) & valid[:, None, :]
+           & valid[:, :, None])                                  # (B, n, n)
+    core = (torch.sum(adj, -1) >= min_samples) & valid
+    idx = torch.arange(n, device=x.device)
+    none = torch.full_like(adj, n, dtype=torch.long)
+    core_adj = adj & core[:, None, :]
+    labels = torch.where(core, idx, n)                           # n = none
+    for _ in range(n):
+        new = torch.amin(torch.where(core_adj, labels[:, None, :], none), -1)
+        labels = torch.where(core, torch.minimum(labels, new), labels)
+    border = torch.amin(torch.where(core_adj, labels[:, None, :], none), -1)
+    labels = torch.where(core, labels,
+                         torch.where(valid & (border < n), border, n))
+    is_root = (labels == idx) & (labels < n)
+    new_id = torch.cumsum(is_root, -1) - 1
+    renum = torch.where(labels < n,
+                        torch.gather(new_id, 1, torch.clamp(labels, max=n - 1)),
+                        -1)
+    return DbscanResult(renum, torch.sum(is_root, -1))

@@ -8,8 +8,10 @@ finished restart keeps its state.  Scenes are another: mic positions
 (B, M, 3) with TDOAs (B, P) solve B independent problems in the same
 lock-step loop (the JAX package's ``vmap`` over scenes written out), which
 stops when every start of every scene is done; unbatched calls run the
-same code with B = 1.  The differential-evolution fallback, the robust LM
-and L-BFGS-B belong to later slices.
+same code with B = 1.  The outlier-robust LM solves its leave-k-out pair
+subsets as one more such axis.  The fallback for a failed LM — the
+differential evolution with its L-BFGS-B polish (gradients from
+``torch.autograd``) — is host-paced, like scipy's.
 
 Sign convention: r = (||x - mic_j|| - ||x - mic_i||) - c * td
 (utils.py:398-404); physical mode feeds td = -(peak lag)/fs.
@@ -17,10 +19,13 @@ Sign convention: r = (||x - mic_j|| - ||x - mic_i||) - c * td
 
 from __future__ import annotations
 
+import itertools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from ..ops.quantile import median_nonneg
 from . import cluster as cluster_ops
 
 
@@ -78,32 +83,69 @@ def heuristic_initial_guesses(mic_positions: torch.Tensor, pairs_i, pairs_j,
                               generator: Optional[torch.Generator] = None,
                               clustering_method: str = "kmeans",
                               max_clusters: int = 5,
-                              seed_indices: Optional[torch.Tensor] = None
+                              seed_indices: Optional[torch.Tensor] = None,
+                              eps: float = 0.001, min_samples: int = 2
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Clustered initial guesses + the mic centroid
-    (heuristic_initialization_adaptive, utils.py:304-362): k-means for every
-    k = 1..max_clusters, the silhouette-selected k (strict improvement,
-    utils.py:273-302), then the centroid unless already present.  mics
-    (..., M, 3), tdoas (..., P), seed_indices (..., max_clusters) ->
-    (guesses (..., max_clusters + 1, 3), valid); invalid rows hold the
-    centroid."""
-    if clustering_method != "kmeans":
-        raise NotImplementedError(
-            f"clustering_method={clustering_method!r} is not ported yet; "
-            "DBSCAN follows in a later slice")
+    (heuristic_initialization_adaptive, utils.py:304-362).  'kmeans':
+    k-means for every k = 1..max_clusters and the silhouette-selected k
+    (strict improvement, utils.py:273-302), G = max_clusters rows;
+    'dbscan' (``eps``, ``min_samples``): the mean of each cluster, G = P
+    rows; any other method: the centroid alone (utils.py:355-356).  Then
+    the centroid unless already present.  mics (..., M, 3), tdoas (..., P),
+    seed_indices (..., max_clusters) -> (guesses (..., G + 1, 3), valid);
+    invalid rows hold the centroid."""
     if mic_positions.dim() == 2:
         g, v = heuristic_initial_guesses(
             mic_positions[None], pairs_i, pairs_j, tdoas[None], c, generator,
             clustering_method, max_clusters,
             None if seed_indices is None
-            else torch.as_tensor(seed_indices)[None])
+            else torch.as_tensor(seed_indices)[None], eps, min_samples)
         return g[0], v[0]
     dev = mic_positions.device
     batch = mic_positions.shape[0]
-    rows = torch.arange(batch, device=dev)
     centroid = torch.mean(mic_positions, 1)                      # (B, 3)
     points, pvalid = pair_guesses(mic_positions, pairs_i, pairs_j, tdoas, c)
-    n = points.shape[1]
+    if clustering_method == "kmeans":
+        guesses, gvalid = _kmeans_guesses(points, pvalid, centroid,
+                                          generator, max_clusters,
+                                          seed_indices)
+    elif clustering_method == "dbscan":
+        res = cluster_ops.dbscan(points, eps, min_samples, pvalid)
+        ids = torch.arange(points.shape[1], device=dev)
+        onehot = ((res.labels[..., None] == ids) & (res.labels >= 0)[..., None]
+                  & pvalid[..., None])                           # (B, P, P)
+        counts = torch.sum(onehot, 1)                            # (B, P)
+        sums = onehot.transpose(1, 2).to(points.dtype) @ points  # (B, P, 3)
+        gvalid = counts > 0
+        means = sums / torch.clamp(counts, min=1)[..., None]
+        guesses = torch.where(gvalid[..., None], means, centroid[:, None, :])
+    else:
+        guesses = centroid[:, None, :]
+        gvalid = torch.ones((batch, 1), dtype=torch.bool, device=dev)
+
+    # No valid pair guesses at all -> centroid only (utils.py:316-317).
+    any_pairs = torch.any(pvalid, 1)
+    guesses = torch.where(any_pairs[:, None, None], guesses,
+                          centroid[:, None, :].expand_as(guesses))
+    first = torch.arange(guesses.shape[1], device=dev) < 1
+    gvalid = torch.where(any_pairs[:, None], gvalid, first[None])
+
+    # Always append the centroid unless already present (utils.py:358-361).
+    present = torch.any(gvalid & torch.all(
+        torch.abs(guesses - centroid[:, None, :]) <= 1e-6, -1), 1)
+    guesses = torch.cat([guesses, centroid[:, None, :]], 1)
+    gvalid = torch.cat([gvalid, ~present[:, None]], 1)
+    guesses = torch.where(gvalid[..., None], guesses, centroid[:, None, :])
+    return guesses, gvalid
+
+
+def _kmeans_guesses(points, pvalid, centroid, generator, max_clusters,
+                    seed_indices):
+    """The silhouette-selected k-means centers per scene, (B, K, 3) with
+    their validity (rows past the chosen k hold the centroid)."""
+    dev = points.device
+    batch, n = points.shape[:2]
     n_valid = torch.sum(pvalid, 1)
     km = cluster_ops.kmeans_multi(points, max_clusters, generator, iters=10,
                                   valid=pvalid, seed_indices=seed_indices)
@@ -123,22 +165,8 @@ def heuristic_initial_guesses(mic_positions: torch.Tensor, pairs_i, pairs_j,
     stacked = torch.where(stacked_valid[None, :, :, None], km.centers,
                           centroid[:, None, None, :])
     sel = torch.clamp(num - 1, 0, max_clusters - 1)
-    guesses = stacked[rows, sel]                                 # (B, K, 3)
-    gvalid = stacked_valid[sel]                                  # (B, K)
-
-    # No valid pair guesses at all -> centroid only (utils.py:316-317).
-    any_pairs = torch.any(pvalid, 1)
-    guesses = torch.where(any_pairs[:, None, None], guesses,
-                          centroid[:, None, :].expand_as(guesses))
-    gvalid = torch.where(any_pairs[:, None], gvalid, (k_cols < 1)[None])
-
-    # Always append the centroid unless already present (utils.py:358-361).
-    present = torch.any(gvalid & torch.all(
-        torch.abs(guesses - centroid[:, None, :]) <= 1e-6, -1), 1)
-    guesses = torch.cat([guesses, centroid[:, None, :]], 1)
-    gvalid = torch.cat([gvalid, ~present[:, None]], 1)
-    guesses = torch.where(gvalid[..., None], guesses, centroid[:, None, :])
-    return guesses, gvalid
+    rows = torch.arange(batch, device=dev)
+    return stacked[rows, sel], stacked_valid[sel]
 
 
 def dynamic_bounds(mic_positions: torch.Tensor, tdoas: torch.Tensor, c,
@@ -247,3 +275,214 @@ def multi_start_lm(guesses: torch.Tensor, mic_positions, pairs_i, pairs_j,
         return LMResult(res.x[best], cost[best])
     rows = torch.arange(guesses.shape[0], device=guesses.device)
     return LMResult(res.x[rows, best], cost[rows, best])
+
+
+def multi_start_lm_robust(guesses: torch.Tensor, mic_positions, pairs_i,
+                          pairs_j, tdoas, c, weights, lower, upper,
+                          iters: int = 60,
+                          huber_k: float = 1.345) -> LMResult:
+    """Outlier-robust LM (the JAX package's least-median-of-squares
+    consensus): every pair subset with k pairs left out (k = 2 for P >= 6,
+    1 for P >= 4, else 0) is solved from ``guesses`` (G, 3), the subsets as
+    one leading batch axis of the multi-start LM; the fix whose median
+    absolute residual over ALL pairs is least wins, and one Huber-weighted
+    refit from it (MAD scale floored at 1 mm) gives the answer."""
+    p = len(pairs_i)
+    drop = 2 if p >= 6 else (1 if p >= 4 else 0)
+    if drop == 0:
+        return multi_start_lm(guesses, mic_positions, pairs_i, pairs_j,
+                              tdoas, c, weights, lower, upper, iters)
+    combos = list(itertools.combinations(range(p), drop))
+    masks = np.ones((len(combos), p))
+    for row, gone in enumerate(combos):
+        masks[row, list(gone)] = 0.0
+    masks = torch.as_tensor(masks, dtype=tdoas.dtype, device=tdoas.device)
+    subsets = masks.shape[0]
+
+    def per_subset(t):
+        return t[None].expand((subsets,) + tuple(t.shape))
+
+    best = multi_start_lm(per_subset(guesses), per_subset(mic_positions),
+                          pairs_i, pairs_j, per_subset(tdoas), c,
+                          weights * masks, per_subset(lower),
+                          per_subset(upper), iters)              # x (S, 3)
+    ones = torch.ones_like(weights)
+    r = torch.abs(tdoa_residuals(best.x, mic_positions, pairs_i, pairs_j,
+                                 tdoas, c, ones))                # (S, P)
+    med = median_nonneg(r)
+    i = int(torch.argmin(med))
+    x = best.x[i]
+    r = torch.abs(tdoa_residuals(x, mic_positions, pairs_i, pairs_j, tdoas,
+                                 c, ones))
+    s = torch.clamp(med[i] / 0.6745, min=1e-3)
+    w = weights * torch.clamp(huber_k * s / torch.clamp(r, min=1e-12),
+                              max=1.0)
+    return multi_start_lm(x[None, :], mic_positions, pairs_i, pairs_j,
+                          tdoas, c, w, lower, upper, iters)
+
+
+# ---------------------------------------------------------------------------
+# Box-constrained L-BFGS-B (the DE polish: scipy's differential_evolution
+# with polish=True refines with L-BFGS-B, main.py:281-292)
+# ---------------------------------------------------------------------------
+
+class LBFGSBResult(NamedTuple):
+    x: torch.Tensor
+    fun: torch.Tensor
+
+
+def _gradient(objective, x: torch.Tensor) -> torch.Tensor:
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(objective(xg), xg)
+    return g.detach()
+
+
+def lbfgsb_minimize(objective, x0: torch.Tensor, lower: torch.Tensor,
+                    upper: torch.Tensor, history: int = 10,
+                    maxiter: int = 100, pgtol: float = 1e-5,
+                    ftol: float = 2.220446049250313e-09) -> LBFGSBResult:
+    """Projected L-BFGS for box constraints (the JAX package's
+    ``lbfgsb_minimize``): the two-loop recursion over a ring of (s, y)
+    pairs with active-set gradient masking, a projected-Armijo
+    backtracking search, and scipy's L-BFGS-B stopping rules
+    (projected-gradient inf-norm <= pgtol, or relative decrease <= ftol).
+    ``objective`` maps (dim,) to a scalar tensor; gradients come from
+    ``torch.autograd``.  Host-paced: it serves the rare LM failure."""
+    dtype = x0.dtype if x0.is_floating_point() else torch.float32
+    x = torch.clamp(x0.to(dtype), lower, upper)
+    tiny = torch.finfo(dtype).tiny
+    dim = x.shape[0]
+    m = history
+    s_hist = torch.zeros((m, dim), dtype=dtype, device=x.device)
+    y_hist = torch.zeros_like(s_hist)
+    rho = [0.0] * m
+    head = count = 0
+
+    def proj(v):
+        return torch.clamp(v, lower, upper)
+
+    def direction(g):
+        q = g.clone()
+        alpha = [0.0] * m
+        order = [(head - 1 - k) % m for k in range(m)]   # newest -> oldest
+        for i in order[:count]:
+            alpha[i] = rho[i] * float(torch.dot(s_hist[i], q))
+            q = q - alpha[i] * y_hist[i]
+        newest = (head - 1) % m
+        gamma = 1.0
+        if count > 0:
+            gamma = float(torch.dot(s_hist[newest], y_hist[newest])) / max(
+                float(torch.dot(y_hist[newest], y_hist[newest])), tiny)
+        r = gamma * q
+        for i in reversed(order[:count]):
+            b = rho[i] * float(torch.dot(y_hist[i], r))
+            r = r + (alpha[i] - b) * s_hist[i]
+        return -r
+
+    def line_search(f, d):
+        a = 1.0
+        for _ in range(30):
+            xa = proj(x + a * d)
+            fa = objective(xa).detach()
+            drop = float(torch.sum((x - xa) ** 2)) / max(a, tiny)
+            if bool(torch.isfinite(fa)) and float(fa) <= float(f) - 1e-4 * drop:
+                return True, xa, fa
+            a *= 0.5
+        return False, x, f
+
+    f = objective(x).detach()
+    g = _gradient(objective, x)
+    for _ in range(maxiter):
+        active = ((x <= lower) & (g > 0)) | ((x >= upper) & (g < 0))
+        gm = torch.where(active, torch.zeros_like(g), g)
+        d = torch.where(active, torch.zeros_like(g), direction(gm))
+        if not float(torch.dot(d, gm)) < 0:
+            d = -gm           # curvature is junk: steepest descent
+        ok, xn, fn = line_search(f, d)
+        gn = _gradient(objective, xn)
+        s, y = xn - x, gn - g
+        sy = float(torch.dot(s, y))
+        if ok and sy > 1e-10 * float(torch.linalg.norm(s)) * float(
+                torch.linalg.norm(y)):
+            pos = head % m
+            s_hist[pos], y_hist[pos] = s, y
+            rho[pos] = 1.0 / max(sy, tiny)
+            head += 1
+            count = min(count + 1, m)
+        pg = float(torch.amax(torch.abs(proj(xn - gn) - xn)))
+        fdrop = float(f - fn) / max(abs(float(f)), abs(float(fn)), 1.0)
+        x, f, g = xn, fn, gn
+        if pg <= pgtol or (ok and fdrop <= ftol) or not ok:
+            break
+    return LBFGSBResult(x, f)
+
+
+# ---------------------------------------------------------------------------
+# Differential evolution (main.py:281-292)
+# ---------------------------------------------------------------------------
+
+class DEResult(NamedTuple):
+    x: torch.Tensor
+    energy: torch.Tensor
+
+
+def differential_evolution(objective, lower: torch.Tensor,
+                           upper: torch.Tensor,
+                           generator: Optional[torch.Generator] = None,
+                           popsize: int = 15, maxiter: int = 1000,
+                           tol: float = 1e-6,
+                           mutation: Tuple[float, float] = (0.5, 1.0),
+                           recombination: float = 0.7, polish_fn=None,
+                           init: Optional[torch.Tensor] = None) -> DEResult:
+    """best1bin DE with dithered mutation and a latin-hypercube start
+    (the reference's scipy parameters, main.py:281-292; the JAX package's
+    ``differential_evolution``): the (popsize * dim, dim) population lives
+    on the device, ``objective`` maps (N, dim) to (N,), every draw comes
+    from ``generator``, and the loop stops on scipy's rule std(energies)
+    <= 1e-8 + tol * |mean(energies)| or after ``maxiter`` generations.
+    ``init`` rows replace the first members; ``polish_fn(x) -> (x, e)``
+    refines the best member."""
+    dev, dtype = lower.device, lower.dtype
+    dim = lower.shape[0]
+    pop_n = popsize * dim
+
+    def rand(*shape):
+        return torch.rand(shape, generator=generator, dtype=dtype,
+                          device=dev)
+
+    def randint(high, *shape):
+        return torch.randint(0, high, shape, generator=generator,
+                             device=dev)
+
+    span = upper - lower
+    segs = (torch.arange(pop_n, dtype=dtype, device=dev) + rand(dim, pop_n)
+            ) / pop_n
+    perms = torch.argsort(rand(dim, pop_n), dim=-1)
+    pop = lower + torch.gather(segs, 1, perms).T * span      # (pop, dim)
+    if init is not None:
+        k = min(init.shape[0], pop_n)
+        pop[:k] = torch.clamp(init[:k].to(dtype), lower, upper)
+    energies = objective(pop)
+    members = torch.arange(pop_n, device=dev)
+    for _ in range(maxiter):
+        if float(torch.std(energies, correction=0)) <= 1e-8 + tol * abs(
+                float(torch.mean(energies))):
+            break
+        best = pop[torch.argmin(energies)]
+        f = mutation[0] + (mutation[1] - mutation[0]) * rand()
+        r1 = randint(pop_n, pop_n)
+        r2 = (r1 + 1 + randint(pop_n - 1, pop_n)) % pop_n
+        mutant = torch.clamp(best + f * (pop[r1] - pop[r2]), lower, upper)
+        cross = rand(pop_n, dim) < recombination
+        cross[members, randint(dim, pop_n)] = True   # at least one dim
+        trial = torch.where(cross, mutant, pop)
+        trial_e = objective(trial)
+        better = trial_e < energies
+        pop = torch.where(better[:, None], trial, pop)
+        energies = torch.where(better, trial_e, energies)
+    i = torch.argmin(energies)
+    x, e = pop[i], energies[i]
+    if polish_fn is not None:
+        x, e = polish_fn(x)
+    return DEResult(x, e)

@@ -2,11 +2,15 @@
 null (counterpart of the JAX package's models/tdoa.py; reference:
 utils.py:121-271).
 
-Ported: the physical-lag ladder with the 'gaussian' threshold and a
-max_expected_delay window (the physical path's single-peak case), its
-collapsed form on a lag window (``tdoa_single_from_window``, fed by kernels
-K2 / K5), the correlation metrics, and the permutation bootstrap through
-kernels K4a/K4b (ops/cuda_fft.fft_real + bootstrap_peaks).
+Ported: the physical-lag ladder with the 'gaussian', 'adaptive' and
+'median' thresholds, with a max_expected_delay window or over the whole
+row; its collapsed form on a lag window (``tdoa_single_from_window``, fed
+by kernels K2 / K5); the single-pair ``get_time_delays_phat``; the
+correlation metrics; and the bootstrap null: permutation, block and
+circular resamples through kernels K4a/K4b (ops/cuda_fft.fft_real +
+bootstrap_peaks), and the uniform-noise null through K4a/K6
+(``noise_bootstrap_peaks``).  The reference lag axis belongs to the parity
+slice.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch.nn.functional as F
 from ..ops import cuda_fft
 from ..ops import gccphat
 from ..ops import peaks as peaks_ops
+from ..ops.quantile import median_nonneg
 
 
 class TdoaResult(NamedTuple):
@@ -35,18 +40,19 @@ def time_delays_from_corr(corr: torch.Tensor, n1: int, n2: int, fs: float,
                           threshold_multiplier: float = 1.0,
                           max_expected_delay: Optional[float] = None,
                           lag_mode: str = "physical",
-                          num_candidates: int = 128) -> TdoaResult:
+                          num_candidates: int = 128,
+                          threshold_subsample: int = 7) -> TdoaResult:
     """Delays (s) of the tallest peaks of each row of ``corr`` (circular
-    order, last axis length n): the reference's ladder — primary threshold,
-    then mean|corr|, then the global argmax, each re-run inside the
-    max_expected_delay window (utils.py:148-172)."""
-    if (lag_mode != "physical" or threshold_method != "gaussian"
-            or max_expected_delay is None):
+    order, last axis length n): the reference's ladder — primary threshold
+    ('gaussian', 'adaptive' or 'median'; any other name falls back to
+    'median' as in utils.py:149), then mean|corr|, then the global argmax,
+    each re-run inside the max_expected_delay window when one is given
+    (utils.py:148-172).  Physical lags only; strict local maxima."""
+    if lag_mode != "physical":
         raise NotImplementedError(
-            "time_delays_from_corr: only lag_mode='physical' with the "
-            "'gaussian' threshold and a max_expected_delay window is ported; "
-            "the median/adaptive ladders and the reference lag axis follow "
-            "in a later slice")
+            f"time_delays_from_corr: lag_mode={lag_mode!r} (the reference "
+            "lag axis and plateau peaks) is not ported yet; a later slice "
+            "brings parity mode")
     n = corr.shape[-1]
     num_candidates = min(num_candidates, n)
     # Centre lag 0 so peaks near zero delay are interior samples.  Alias-free
@@ -59,41 +65,68 @@ def time_delays_from_corr(corr: torch.Tensor, n1: int, n2: int, fs: float,
                                 device=corr.device) / fs
 
     abs_corr = torch.abs(corr)
-    # Gaussian-calibrated median estimate: 0.84535 * mean|x| estimates the
-    # median |x| of zero-mean Gaussian bins in one pass.
-    thr_primary = (threshold_multiplier * 0.84535
-                   * torch.mean(abs_corr, -1, keepdim=True))
+    if threshold_method == "adaptive":
+        thr_primary = threshold_multiplier * (
+            torch.mean(abs_corr, -1, keepdim=True)
+            + torch.std(abs_corr, -1, correction=0, keepdim=True))
+    elif threshold_method == "gaussian":
+        # Gaussian-calibrated median estimate: 0.84535 * mean|x| estimates
+        # the median |x| of zero-mean Gaussian bins in one pass.
+        thr_primary = (threshold_multiplier * 0.84535
+                       * torch.mean(abs_corr, -1, keepdim=True))
+    else:
+        # Exact median of |corr|, on a prime-stride subsample of long rows
+        # (the JAX package's physical-mode statistic; a prime stride keeps
+        # tonal |corr| from phase-locking onto one point of its period).
+        stride = (threshold_subsample if threshold_subsample > 1
+                  and n >= 64 * threshold_subsample else 1)
+        thr_primary = threshold_multiplier * median_nonneg(
+            abs_corr[..., ::stride])[..., None]
     thr_alt = torch.mean(abs_corr, -1, keepdim=True)  # utils.py:155
     distance = int(fs * 0.001)  # min 1 ms peak spacing (utils.py:151)
 
-    # After centring, the lag window is one static slice around `shift`,
-    # dilated by 8 peak distances so suppressors of in-window candidates
-    # are present; the threshold-existence tests scan the whole row.
-    half = int(np.ceil(max_expected_delay * fs)) + 8 * max(distance, 1)
-    c0 = max(0, shift - half)
-    c1 = min(n, shift + half + 1)
-    lm = peaks_ops.local_maxima(corr)
-    cnt_a = torch.any(lm & (corr >= thr_primary), -1, keepdim=True)
-    cnt_b = torch.any(lm & (corr >= thr_alt), -1, keepdim=True)
-    pos_s, h_s, keep_a, keep_b = peaks_ops.select_peaks_two(
-        corr[..., c0:c1], thr_primary, thr_alt, distance,
-        min(num_candidates, c1 - c0))
-    pos = pos_s + c0
-    set_a = (pos, h_s, keep_a)
-    set_b = (pos, h_s, keep_b)
+    if max_expected_delay is not None:
+        # After centring, the lag window is one static slice around
+        # `shift`, dilated by 8 peak distances so suppressors of in-window
+        # candidates are present; the threshold-existence tests scan the
+        # whole row.
+        half = int(np.ceil(max_expected_delay * fs)) + 8 * max(distance, 1)
+        c0 = max(0, shift - half)
+        c1 = min(n, shift + half + 1)
+        lm = peaks_ops.local_maxima(corr)
+        use_a = torch.any(lm & (corr >= thr_primary), -1, keepdim=True)
+        use_b = torch.any(lm & (corr >= thr_alt), -1, keepdim=True)
+        pos_s, h_s, keep_a, keep_b = peaks_ops.select_peaks_two(
+            corr[..., c0:c1], thr_primary, thr_alt, distance,
+            min(num_candidates, c1 - c0))
+        pos = pos_s + c0
+        set_a = (pos, h_s, keep_a)
+        set_b = (pos, h_s, keep_b)
+    else:
+        set_a = peaks_ops.select_peaks(corr, thr_primary, distance,
+                                       num_candidates)
+        set_b = peaks_ops.select_peaks(corr, thr_alt, distance,
+                                       num_candidates)
+        use_a = torch.any(set_a[2], -1, keepdim=True)
+        use_b = torch.any(set_b[2], -1, keepdim=True)
 
-    stage1 = tuple(torch.where(cnt_a, xa, xb) for xa, xb in zip(set_a, set_b))
-    argmax_fallback = ~cnt_a & ~cnt_b     # utils.py:157-160
+    stage1 = tuple(torch.where(use_a, xa, xb) for xa, xb in zip(set_a, set_b))
+    argmax_fallback = ~use_a & ~use_b     # utils.py:157-160
 
-    w1 = stage1[2] & (torch.abs(time_lags[stage1[0]]) <= max_expected_delay)
-    w2 = set_b[2] & (torch.abs(time_lags[set_b[0]]) <= max_expected_delay)
-    have1 = torch.any(w1, -1, keepdim=True)
-    have2 = torch.any(w2, -1, keepdim=True)
-    final = tuple(torch.where(have1, s1, torch.where(have2, s2, s1))
-                  for s1, s2 in zip((stage1[0], stage1[1], w1),
-                                    (set_b[0], set_b[1], w2)))
-    # No in-window peak anywhere -> argmax fallback (utils.py:169-172).
-    argmax_fallback = argmax_fallback | (~have1 & ~have2)
+    if max_expected_delay is not None:
+        w1 = stage1[2] & (torch.abs(time_lags[stage1[0]])
+                          <= max_expected_delay)
+        w2 = set_b[2] & (torch.abs(time_lags[set_b[0]])
+                         <= max_expected_delay)
+        have1 = torch.any(w1, -1, keepdim=True)
+        have2 = torch.any(w2, -1, keepdim=True)
+        final = tuple(torch.where(have1, s1, torch.where(have2, s2, s1))
+                      for s1, s2 in zip((stage1[0], stage1[1], w1),
+                                        (set_b[0], set_b[1], w2)))
+        # No in-window peak anywhere -> argmax fallback (utils.py:169-172).
+        argmax_fallback = argmax_fallback | (~have1 & ~have2)
+    else:
+        final = stage1
 
     pos_f, _, keep_f = peaks_ops.compact_valid(*final)
     delays = time_lags[pos_f[..., :num_peaks]]
@@ -169,6 +202,28 @@ def tdoa_single_from_window(win: torch.Tensor, stats: torch.Tensor,
     return torch.where(has, peak_lag, glag) / fs
 
 
+def get_time_delays_phat(sig1: torch.Tensor, sig2: torch.Tensor, fs: float,
+                         num_peaks: int = 1,
+                         threshold_method: str = "median",
+                         threshold_multiplier: float = 1.0,
+                         max_expected_delay: Optional[float] = None,
+                         lag_mode: str = "reference",
+                         nfft: Optional[int] = None) -> TdoaResult:
+    """Single-pair convenience with the reference's call shape
+    (utils.py:121-181): ``gccphat.phat_correlation`` (kernels K4a + K9 at
+    a power-of-two ``nfft``, torch.fft + K7 at the exact length) and the
+    ladder.  The reference lag axis (the default ``lag_mode``) belongs to
+    the parity slice; pass ``lag_mode='physical'``."""
+    if lag_mode != "physical":
+        raise NotImplementedError(
+            f"get_time_delays_phat: lag_mode={lag_mode!r} is not ported yet; "
+            "a later slice brings parity mode (pass lag_mode='physical')")
+    corr = gccphat.phat_correlation(sig1, sig2, nfft=nfft)
+    return time_delays_from_corr(
+        corr, sig1.shape[-1], sig2.shape[-1], fs, num_peaks,
+        threshold_method, threshold_multiplier, max_expected_delay, lag_mode)
+
+
 def peak_to_peak_ratio(corr: torch.Tensor) -> torch.Tensor:
     """max / |min|; inf when the trough is exactly zero (utils.py:228-236)."""
     peak = torch.amax(corr, -1)
@@ -208,37 +263,95 @@ def permuted_rows(sig2: torch.Tensor, num: int,
     return sig2[torch.argsort(keys, dim=-1)]
 
 
+def block_rows(sig2: torch.Tensor, num: int,
+               generator: Optional[torch.Generator],
+               block_size: int = 50) -> torch.Tensor:
+    """``num`` block permutations of ``sig2``: it is cut into blocks of
+    ``block_size`` (the last zero-padded), the blocks permuted, the result
+    trimmed back to sig2's length."""
+    n2 = sig2.shape[-1]
+    num_blocks = -(-n2 // block_size)
+    padded = torch.nn.functional.pad(sig2, (0, num_blocks * block_size - n2))
+    blocks = padded.reshape(num_blocks, block_size)
+    keys = torch.rand((num, num_blocks), generator=generator,
+                      dtype=torch.float64, device=sig2.device)
+    return blocks[torch.argsort(keys, dim=-1)].reshape(num, -1)[:, :n2]
+
+
+def circular_rows(sig2: torch.Tensor, num: int,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``num`` circular shifts of ``sig2`` by uniform integers in
+    [0, n2): row[t] = sig2[(t - shift) mod n2], ``torch.roll``'s sense."""
+    n2 = sig2.shape[-1]
+    shift = torch.randint(0, n2, (num, 1), generator=generator,
+                          device=sig2.device)
+    idx = (torch.arange(n2, device=sig2.device) - shift) % n2
+    return sig2[idx]
+
+
+def _spectrum(sig1: torch.Tensor, n: int) -> torch.Tensor:
+    """sig1's (n//2 + 1,) spectrum through kernel K4a, truncated to n
+    samples first as numpy's rfft would."""
+    return cuda_fft.fft_real(sig1[None, :n].contiguous(), n)[0].contiguous()
+
+
 def bootstrap_threshold(sig1: torch.Tensor, rows: torch.Tensor,
                         nfft: int, alpha: float = 0.05) -> torch.Tensor:
     """(1-alpha) quantile of the PHAT peak between ``sig1`` and each
     resampled row (B, n2) at transform length ``nfft``."""
-    s1 = cuda_fft.fft_real(sig1[None].contiguous(), nfft)[0]
-    peaks = cuda_fft.bootstrap_peaks(s1.contiguous(), rows.contiguous(), nfft,
+    peaks = cuda_fft.bootstrap_peaks(_spectrum(sig1, nfft),
+                                     rows[:, :nfft].contiguous(), nfft,
                                      gccphat.PHAT_EPS)
     return torch.quantile(peaks, 1.0 - alpha)
+
+
+def noise_null_peaks(sig1: torch.Tensor, sig2: torch.Tensor,
+                     generator: Optional[torch.Generator],
+                     num_bootstrap: int, nfft: int) -> torch.Tensor:
+    """PHAT peak maxima between sig1 and ``num_bootstrap`` fresh uniform
+    noise rows of sig2's length (``bootstrap_mode='noise'``, the JAX
+    package's ``_noise_null_peaks``): sig2 enters only through its length,
+    the null's degrees of freedom.  K4a transforms sig1; K6 draws, whitens
+    and reduces the rows, from one (B, 2) int32 seed pair per draw taken
+    from ``generator``."""
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (num_bootstrap, 2),
+                          generator=generator, dtype=torch.int32,
+                          device=sig1.device)
+    return cuda_fft.noise_bootstrap_peaks(
+        _spectrum(sig1, nfft), seeds, min(sig2.shape[-1], nfft), nfft,
+        gccphat.PHAT_EPS)
 
 
 def bootstrap_significance(sig1: torch.Tensor, sig2: torch.Tensor,
                            generator: Optional[torch.Generator] = None,
                            num_bootstrap: int = 1000, alpha: float = 0.05,
                            bootstrap_mode: str = "permutation",
+                           block_size: int = 50,
                            nfft: Optional[int] = None) -> torch.Tensor:
     """Null-distribution threshold for the PHAT peak (utils.py:183-216):
-    ``num_bootstrap`` permutations of sig2, each correlated with sig1 at
-    ``nfft`` (the real correlation's transform length), reduced to the
-    (1-alpha) quantile of their peaks."""
-    if bootstrap_mode != "permutation":
-        raise NotImplementedError(
-            f"bootstrap_mode={bootstrap_mode!r} is not ported yet; the "
-            "'noise' null (kernel K6) and the block/circular resamplers "
-            "follow in a later slice")
+    ``num_bootstrap`` resamples of sig2 (``bootstrap_mode`` 'permutation',
+    'block' or 'circular'), each correlated with sig1 at ``nfft`` (the
+    real correlation's transform length), reduced to the (1-alpha)
+    quantile of their peaks.  'noise' is the physical-mode surrogate: fresh
+    uniform noise rows of sig2's length in place of the resamples (the
+    permutation null within Monte-Carlo error, tests/test_bootstrap_noise.py
+    of the JAX package), drawn inside kernel K6, so no permutation is
+    sorted.  Signals longer than nfft are truncated, as numpy's rfft
+    does."""
     n1, n2 = sig1.shape[-1], sig2.shape[-1]
     n = nfft if nfft is not None else n1 + n2 - 1
-    if n1 > n or n2 > n:
-        raise NotImplementedError("bootstrap_significance: signals longer "
-                                  "than nfft (truncating transforms) are "
-                                  "not ported")
-    rows = permuted_rows(sig2, num_bootstrap, generator)
+    if bootstrap_mode == "noise":
+        peaks = noise_null_peaks(sig1, sig2, generator, num_bootstrap, n)
+        return torch.quantile(peaks, 1.0 - alpha)
+    if bootstrap_mode == "permutation":
+        rows = permuted_rows(sig2, num_bootstrap, generator)
+    elif bootstrap_mode == "block":
+        rows = block_rows(sig2, num_bootstrap, generator, block_size)
+    elif bootstrap_mode == "circular":
+        rows = circular_rows(sig2, num_bootstrap, generator)
+    else:
+        raise ValueError("Unknown bootstrap_mode. Use 'permutation', "
+                         "'block', 'circular' or 'noise'.")
     return bootstrap_threshold(sig1, rows, n, alpha)
 
 

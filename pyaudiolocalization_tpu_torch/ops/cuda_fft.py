@@ -1,33 +1,38 @@
 """The port's hand-written CUDA kernels: wrappers, plain twins, build.
 
-Six kernels replace the Pallas kernels of the TPU package
-(``pyaudiolocalization_tpu/ops/pallas_fft.py``):
+Nine kernels replace the Pallas kernels of the TPU package
+(``pyaudiolocalization_tpu/ops/pallas_fft.py``, and ``pallas_kernels.py``
+for K7):
 
-=============== ============================== ===============================
-wrapper         replaces                       what bounds it on an H100
-=============== ============================== ===============================
-fft_real        bfly_fft_real (:685)           memory: FFT passes
-gcc_all_pairs   bfly_gcc_all_pairs (:922)      memory: FFT passes
-gcc_windowed    bfly_gcc_windowed (:1095)      memory: FFT passes
-bootstrap_peaks bfly_bootstrap_peaks (:1227)   memory: FFT passes
-scene_windowed  bfly_scene_windowed (:1600)    memory: FFT passes
-delay_sum       bfly_delay_sum (:1851)         memory: FFT passes
-=============== ============================== ===============================
+===================== ====================================== ==================
+wrapper               replaces                               bound on an H100
+===================== ====================================== ==================
+fft_real              bfly_fft_real (:685)                   memory: FFT passes
+whitened_corr         bfly_whitened_corr (:707)              memory: FFT passes
+gcc_all_pairs         bfly_gcc_all_pairs (:922)              memory: FFT passes
+gcc_windowed          bfly_gcc_windowed (:1095)              memory: FFT passes
+bootstrap_peaks       bfly_bootstrap_peaks (:1227)           memory: FFT passes
+noise_bootstrap_peaks bfly_noise_bootstrap_peaks (:1326)     memory: FFT passes
+scene_windowed        bfly_scene_windowed (:1600)            memory: FFT passes
+delay_sum             bfly_delay_sum (:1851)                 memory: FFT passes
+whiten                pallas_kernels.phat_whiten_planes (:34) memory: 16 B/bin
+===================== ====================================== ==================
 
-All six are built from one FFT (``csrc/fft.cuh``): radix-2 Stockham
-passes over rows in device memory, 16 bytes moved per point per pass, so
-every kernel is bound by device-memory (and L2) bandwidth at about
-16·log2(nfft) bytes per point and transform.  The design keeps the rest
-of the work out of device memory where the TPU kernels did: real rows are
-packed two to a complex transform, the whitening / ramp synthesis runs in
-one pass over the spectra, two real results share each inverse, and the
-bootstrap's maxima and the windowed GCC's lag window and statistics are
-taken inside the last inverse pass instead of writing the correlation.
-The TPU kernels' bit-reversed (N2, 128) plane layout is not carried over:
-spectra are in natural order.  The render, windowed-GCC and scene kernels
-take a leading scene axis; every launch covers all scenes.  Measurement
-noise comes from a counter-based Philox generator (``csrc/philox.cuh``,
-twin ``ops/noise.py``) in place of the TPU core's random bits.
+All but ``whiten`` are built from one FFT (``csrc/fft.cuh``): radix-2
+Stockham passes over rows in device memory, 16 bytes moved per point per
+pass, so every such kernel is bound by device-memory (and L2) bandwidth
+at about 16·log2(nfft) bytes per point and transform.  The design keeps
+the rest of the work out of device memory where the TPU kernels did: real
+rows are packed two to a complex transform, the whitening / ramp
+synthesis runs in one pass over the spectra, two real results share each
+inverse, and the bootstrap's maxima and the windowed GCC's lag window and
+statistics are taken inside the last inverse pass instead of writing the
+correlation.  The TPU kernels' bit-reversed (N2, 128) plane layout is not
+carried over: spectra are in natural order.  The render, windowed-GCC and
+scene kernels take a leading scene axis; every launch covers all scenes.
+Measurement noise and the noise-null bootstrap's rows come from a
+counter-based Philox generator (``csrc/philox.cuh``, twin
+``ops/noise.py``) in place of the TPU core's random bits.
 
 Every wrapper takes the plain PyTorch twin (``*_plain``, same module, same
 semantics, ``torch.fft``) for a tensor on the CPU, launches its kernel for
@@ -60,7 +65,9 @@ PHAT_EPS = 1e-10
 #: Kernel launches per wrapper since the last ``reset_launches()``.
 LAUNCHES: Dict[str, int] = {"fft_real": 0, "gcc_all_pairs": 0,
                             "gcc_windowed": 0, "bootstrap_peaks": 0,
-                            "delay_sum": 0, "scene_windowed": 0}
+                            "delay_sum": 0, "scene_windowed": 0,
+                            "noise_bootstrap_peaks": 0, "whiten": 0,
+                            "whitened_corr": 0}
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -128,6 +135,9 @@ def _library() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         signatures = {
             "palt_fft_real": [p, i, i, i, p, p, p, p, p],
+            "palt_noise_bootstrap_peaks": [p, p, i, i, i, f, p, p, p, p, p],
+            "palt_whiten": [p, ctypes.c_longlong, f, p, p],
+            "palt_whitened_corr": [p, p, i, i, p, f, p, p, p, p, p],
             "palt_gcc_all_pairs": [p, i, i, i, p, p, i, p, f, p, p, p, p, p,
                                    p, p],
             "palt_bootstrap_peaks": [p, p, i, i, i, f, p, p, p, p, p],
@@ -251,6 +261,63 @@ def fft_real(x: torch.Tensor, nfft: int) -> torch.Tensor:
                                 bufs[1].data_ptr(), out.data_ptr(),
                                 _stream(dev))
     _raise_on("fft_real", err)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K9: whitened correlation of two spectra
+# ---------------------------------------------------------------------------
+
+def whitened_corr_plain(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
+                        nfft: int, eps: float = PHAT_EPS) -> torch.Tensor:
+    r = a * torch.conj(b)
+    mag = torch.sqrt(r.real * r.real + r.imag * r.imag) + eps
+    m = mask.to(mag.dtype)
+    white = torch.complex(r.real / mag * m, r.imag / mag * m)
+    # irfft reads only the real parts of DC and Nyquist (cuFFT's float32
+    # inverse does not drop them itself).
+    white.imag[..., 0] = 0.0
+    white.imag[..., nfft // 2] = 0.0
+    return torch.fft.irfft(white, n=nfft)
+
+
+def whitened_corr(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
+                  nfft: int, eps: float = PHAT_EPS) -> torch.Tensor:
+    """(B, nfft//2 + 1) natural-order spectra ``a`` and ``b`` (from
+    ``fft_real``) and a band mask (``band_mask``) -> (B, nfft) circular
+    correlations irfft(whiten(a * conj(b)) * mask), whitening
+    r / (|r| + eps).
+
+    Replaces ``bfly_whitened_corr`` (pyaudiolocalization_tpu/ops/
+    pallas_fft.py:707): K1's back half with arbitrary row pairs — one pass
+    forming the whitened, band-masked cross-spectra of two rows per packed
+    Hermitian row (bins 0..n/2, mirrored, real DC and Nyquist), the packed
+    inverse, and a scale-and-split epilogue.  Bound by the FFT passes'
+    device-memory traffic."""
+    if _use_plain(a, b, mask):
+        return whitened_corr_plain(a, b, mask, nfft, eps)
+    _check_contiguous("whitened_corr", a, b, mask)
+    _check_f32("whitened_corr", mask)
+    _check_pow2(nfft)
+    if a.dtype != torch.complex64 or b.dtype != torch.complex64:
+        raise ValueError("whitened_corr: spectra must be complex64")
+    if (a.dim() != 2 or a.shape != b.shape or a.shape[0] == 0
+            or a.shape[1] != nfft // 2 + 1 or mask.shape != (nfft // 2 + 1,)
+            or (a.shape[0] + 1) // 2 > _MAX_GRID_Y):
+        raise ValueError("whitened_corr: unsupported shapes")
+    lib = _library()
+    dev = a.device
+    rows = a.shape[0]
+    out = torch.empty((rows, nfft), dtype=torch.float32, device=dev)
+    z = [_scratch((rows + 1) // 2, nfft, dev) for _ in range(2)]
+    tw = _twiddles(nfft, str(dev))
+    with torch.cuda.device(dev):
+        LAUNCHES["whitened_corr"] += 1
+        err = lib.palt_whitened_corr(a.data_ptr(), b.data_ptr(), rows, nfft,
+                                     mask.data_ptr(), eps, tw.data_ptr(),
+                                     z[0].data_ptr(), z[1].data_ptr(),
+                                     out.data_ptr(), _stream(dev))
+    _raise_on("whitened_corr", err)
     return out
 
 
@@ -457,6 +524,58 @@ def bootstrap_peaks(s1: torch.Tensor, rows: torch.Tensor, nfft: int,
 
 
 # ---------------------------------------------------------------------------
+# K6: noise-null bootstrap peaks
+# ---------------------------------------------------------------------------
+
+def noise_bootstrap_peaks_plain(s1: torch.Tensor, seeds: torch.Tensor,
+                                n_samp: int, nfft: int,
+                                eps: float = PHAT_EPS) -> torch.Tensor:
+    rows = noise_ops.uniform(seeds, n_samp).to(s1.real.dtype)
+    return bootstrap_peaks_plain(s1, rows, nfft, eps)
+
+
+def noise_bootstrap_peaks(s1: torch.Tensor, seeds: torch.Tensor,
+                          n_samp: int, nfft: int,
+                          eps: float = PHAT_EPS) -> torch.Tensor:
+    """``bootstrap_peaks`` against B noise draws made inside the kernel:
+    draw d is ``n_samp`` uniform samples in [-0.5, 0.5) of the Philox
+    stream keyed by ``seeds[d]`` ((B, 2) int32, read as uint32; counter =
+    sample index; the first output word as int32 times 2^-32,
+    ``ops/noise.uniform``), zero-padded to nfft -> (B,) maxima.
+
+    Replaces ``bfly_noise_bootstrap_peaks`` (pyaudiolocalization_tpu/ops/
+    pallas_fft.py:1326): K4b's pipeline with its row load replaced by the
+    draw, made inside the first forward pass (two draws per complex
+    transform), so the rows never exist in device memory and no
+    permutation is sorted.  Bound by the FFT passes' device-memory
+    traffic."""
+    if _use_plain(s1, seeds):
+        return noise_bootstrap_peaks_plain(s1, seeds, n_samp, nfft, eps)
+    _check_contiguous("noise_bootstrap_peaks", s1, seeds)
+    if s1.dtype != torch.complex64 or seeds.dtype != torch.int32:
+        raise ValueError("noise_bootstrap_peaks: s1 must be complex64 and "
+                         "seeds int32")
+    _check_pow2(nfft)
+    num = seeds.shape[0]
+    if (seeds.shape != (num, 2) or num == 0 or not 0 < n_samp <= nfft
+            or s1.shape != (nfft // 2 + 1,) or (num + 1) // 2 > _MAX_GRID_Y):
+        raise ValueError("noise_bootstrap_peaks: unsupported shapes")
+    lib = _library()
+    dev = s1.device
+    out = torch.empty(num, dtype=torch.float32, device=dev)
+    bufs = [_scratch((num + 1) // 2, nfft, dev) for _ in range(2)]
+    tw = _twiddles(nfft, str(dev))
+    with torch.cuda.device(dev):
+        LAUNCHES["noise_bootstrap_peaks"] += 1
+        err = lib.palt_noise_bootstrap_peaks(
+            s1.data_ptr(), seeds.data_ptr(), num, n_samp, nfft, eps,
+            tw.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
+            out.data_ptr(), _stream(dev))
+    _raise_on("noise_bootstrap_peaks", err)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # K3: multipath render
 # ---------------------------------------------------------------------------
 
@@ -653,3 +772,42 @@ def scene_windowed(base: torch.Tensor, tau: torch.Tensor,
             _stream(dev))
     _raise_on("scene_windowed", err)
     return win, stats
+
+
+# ---------------------------------------------------------------------------
+# K7: PHAT whitening of complex spectra
+# ---------------------------------------------------------------------------
+
+def whiten_plain(spec: torch.Tensor, eps: float = PHAT_EPS) -> torch.Tensor:
+    re, im = spec.real, spec.imag
+    inv = 1.0 / (torch.sqrt(re * re + im * im) + eps)
+    return torch.complex(re * inv, im * inv)
+
+
+def whiten(spec: torch.Tensor, eps: float = PHAT_EPS,
+           inplace: bool = False) -> torch.Tensor:
+    """spec / (|spec| + eps) elementwise over a complex tensor of any
+    shape, computed as re * inv, im * inv with inv = 1 / (sqrt(re² + im²)
+    + eps).  ``inplace=True`` lets the kernel overwrite ``spec`` (for a
+    caller that owns it); use the return value either way.
+
+    Replaces ``phat_whiten_planes`` (pyaudiolocalization_tpu/ops/
+    pallas_kernels.py:34), which takes separate (rows, bins) real and
+    imaginary planes; the port's spectra are complex64, so the kernel reads
+    them interleaved, one pass, 8 bytes in and 8 out per bin: bound by
+    device-memory bandwidth."""
+    if _use_plain(spec):
+        return whiten_plain(spec, eps)
+    _check_contiguous("whiten", spec)
+    if spec.dtype != torch.complex64:
+        raise ValueError(f"whiten: the kernel takes complex64, got "
+                         f"{spec.dtype}")
+    lib = _library()
+    dev = spec.device
+    out = spec if inplace else torch.empty_like(spec)
+    with torch.cuda.device(dev):
+        LAUNCHES["whiten"] += 1
+        err = lib.palt_whiten(spec.data_ptr(), spec.numel(), eps,
+                              out.data_ptr(), _stream(dev))
+    _raise_on("whiten", err)
+    return out

@@ -1,12 +1,16 @@
-"""FFT length helpers (counterpart of the JAX package's ops/fftutils.py).
+"""FFT length helpers and exact-length real transforms (counterpart of the
+JAX package's ops/fftutils.py).
 
-Only the length rules are ported: ``torch.fft`` takes any length on both
-devices, so the TPU's Bluestein and packed-pair transforms have no
-counterpart here, and the slice's kernels carry their own transforms
-(ops/cuda_fft.py).
+``torch.fft`` takes any length on both devices, so the TPU's Bluestein
+chirp-z transform and packed-pair helpers have no counterpart here, and
+the kernels carry their own power-of-two transforms (ops/cuda_fft.py).
+``rfft_n`` / ``irfft_n`` serve only the stages where the JAX package ran
+no TPU kernel either (the unfused GCC branch, any length).
 """
 
 from __future__ import annotations
+
+import torch
 
 
 def next_pow2(n: int) -> int:
@@ -28,3 +32,28 @@ def fft_length(n1: int, n2: int, mode: str = "pow2") -> int:
     if mode == "circular":
         return next_pow2(max(n1, n2))
     raise ValueError(f"unknown fft length mode {mode!r}")
+
+
+def rfft_n(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``np.fft.rfft(x, n=n)``: the last axis zero-padded or truncated to
+    n samples."""
+    return torch.fft.rfft(x, n=n)
+
+
+def irfft_n(spec: torch.Tensor, n: int) -> torch.Tensor:
+    """``np.fft.irfft(spec, n=n)``: the half spectrum truncated or
+    zero-padded to n//2 + 1 bins, the imaginary parts of DC and (even n)
+    Nyquist ignored.  Those are zeroed explicitly: cuFFT's float32 inverse
+    does not ignore an imaginary Nyquist part."""
+    bins = n // 2 + 1
+    spec = spec[..., :bins]
+    if spec.shape[-1] < bins:
+        pad = torch.zeros(spec.shape[:-1] + (bins - spec.shape[-1],),
+                          dtype=spec.dtype, device=spec.device)
+        spec = torch.cat([spec, pad], -1)
+    else:
+        spec = spec.clone()
+    spec.imag[..., 0] = 0.0
+    if n % 2 == 0:
+        spec.imag[..., n // 2] = 0.0
+    return torch.fft.irfft(spec, n=n)

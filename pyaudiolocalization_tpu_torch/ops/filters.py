@@ -1,10 +1,13 @@
-"""Butterworth noise reduction (counterpart of the JAX package's
+"""Noise-reduction front ends (counterpart of the JAX package's
 ops/filters.py; reference: signal_processing.py:109-138).
 
-Design happens on the host in float64 (numpy); the zero-phase filter runs
-as two convolutions with the truncated impulse response of the biquad
-cascade (``filtfilt_sos_conv``), the JAX package's default realization.
-The FIR and Wiener methods belong to a later slice.
+Design happens on the host in float64 (numpy).  The Butterworth filter
+runs as two convolutions with the truncated impulse response of the
+biquad cascade (``filtfilt_sos_conv``), the JAX package's default
+realization; the FIR bandpass as scipy's filtfilt protocol over a causal
+convolution (``filtfilt``); the Wiener filter as local statistics over a
+3-sample window.  No TPU kernel ran here: convolutions are plain tensor
+arithmetic (an FFT for 256 taps and more).
 """
 
 from __future__ import annotations
@@ -147,15 +150,116 @@ def filtfilt_sos_conv(sos: tuple, x: torch.Tensor,
     return y[..., padlen:-padlen]
 
 
+@functools.lru_cache(maxsize=64)
+def firwin_bandpass(numtaps: int, low: float, high: float) -> tuple:
+    """Hamming-windowed-sinc bandpass FIR taps (scipy.firwin(numtaps,
+    [low, high], pass_zero=False) semantics), unit gain at the band
+    centre."""
+    m = np.arange(numtaps) - (numtaps - 1) / 2.0
+    h = high * np.sinc(high * m) - low * np.sinc(low * m)
+    h = h * np.hamming(numtaps)
+    c = np.cos(np.pi * m * (0.5 * (low + high)))
+    h = h / np.sum(h * c)
+    return tuple(h.tolist())
+
+
+def _pad_ba(b, a):
+    b = np.atleast_1d(np.asarray(b, np.float64))
+    a = np.atleast_1d(np.asarray(a, np.float64))
+    n = max(len(b), len(a))
+    b = np.concatenate([b, np.zeros(n - len(b))])
+    a = np.concatenate([a, np.zeros(n - len(a))])
+    return b / a[0], a / a[0]
+
+
+@functools.lru_cache(maxsize=64)
+def lfilter_zi(b: tuple, a: tuple) -> tuple:
+    """Steady-state initial conditions for a unit-step input (scipy
+    lfilter_zi semantics): solve (I - A) zi = B with A the DF2T state
+    transition and B = b[1:] - a[1:] b[0]."""
+    bb, aa = _pad_ba(b, a)
+    n = len(aa)
+    if n == 1:
+        return ()
+    trans = np.zeros((n - 1, n - 1))
+    trans[:-1, 1:] += np.eye(n - 2)
+    trans[:, 0] -= aa[1:]
+    rhs = bb[1:] - aa[1:] * bb[0]
+    return tuple(np.linalg.solve(np.eye(n - 1) - trans, rhs).tolist())
+
+
+def _fir_lfilter(b: tuple, a0: float, x: torch.Tensor,
+                 zi: torch.Tensor) -> torch.Tensor:
+    """lfilter with a = [a0]: causal convolution plus the exact DF2T head
+    correction y[t] += zi[t] for t < len(b) - 1."""
+    taps = torch.as_tensor(np.asarray(b, np.float64) / a0, dtype=x.dtype,
+                           device=x.device)
+    k = taps.shape[0]
+    length = x.shape[-1]
+    y = _conv_valid(torch.nn.functional.pad(x, (k - 1, 0)),
+                    torch.flip(taps, [0]))
+    if k > 1:
+        head = torch.zeros_like(y)
+        head[..., :k - 1] = zi[..., :k - 1]
+        y = y + head
+    return y[..., :length]
+
+
+def filtfilt(b, a, x: torch.Tensor) -> torch.Tensor:
+    """Zero-phase FIR filtering with scipy's defaults: odd extension of
+    3*max(len(a), len(b)) samples, steady-state zi scaled by the first
+    sample, forward pass, reversed pass, extension stripped.  ``a`` must
+    be a single coefficient; IIR filters go through
+    ``filtfilt_sos_conv``."""
+    b = tuple(np.atleast_1d(b).tolist())
+    a = tuple(np.atleast_1d(a).tolist())
+    if len(a) != 1:
+        raise NotImplementedError(
+            "filtfilt: direct-form IIR filtering is not ported; use "
+            "filtfilt_sos_conv with second-order sections")
+    padlen = 3 * max(len(a), len(b))
+    if x.shape[-1] <= padlen:
+        raise ValueError("The length of the input vector must be greater "
+                         f"than padlen ({padlen}).")
+    zi = torch.as_tensor(np.asarray(lfilter_zi(b, a)), dtype=x.dtype,
+                         device=x.device)
+    ext = _odd_ext(x, padlen)
+    y = _fir_lfilter(b, a[0], ext, zi * ext[..., :1])
+    y = torch.flip(y, [-1])
+    y = _fir_lfilter(b, a[0], y, zi * y[..., :1])
+    return torch.flip(y, [-1])[..., padlen:-padlen]
+
+
+def wiener(x: torch.Tensor, mysize: int = 3) -> torch.Tensor:
+    """Local-statistics Wiener filter (scipy.signal.wiener 1-D semantics,
+    noise power estimated as the mean local variance)."""
+    ones = torch.ones(mysize, dtype=x.dtype, device=x.device)
+    pad = (mysize // 2, mysize - 1 - mysize // 2)
+    l_mean = _conv_valid(torch.nn.functional.pad(x, pad), ones) / mysize
+    l_var = (_conv_valid(torch.nn.functional.pad(x * x, pad), ones) / mysize
+             - l_mean * l_mean)
+    noise = torch.mean(l_var, -1, keepdim=True)
+    safe = torch.where(l_var == 0, torch.ones_like(l_var), l_var)
+    res = l_mean + (x - l_mean) * (1.0 - noise / safe)
+    return torch.where(l_var < noise, l_mean, res)
+
+
 def noise_reduction(signal: torch.Tensor, fs: float,
                     method: str = "butterworth", lowcut: float = 300.0,
-                    highcut: float = 3400.0) -> torch.Tensor:
-    """Bandpass noise reduction with the reference's defaults (order-5
-    Butterworth, 300-3400 Hz)."""
-    if method != "butterworth":
-        raise NotImplementedError(
-            f"filter_method={method!r} is not ported yet; the 'fir' and "
-            "'wiener' front ends follow in a later slice")
+                    highcut: float = 3400.0,
+                    filter_order: int = 101) -> torch.Tensor:
+    """Bandpass / Wiener noise reduction with the reference's defaults
+    (order-5 Butterworth or a 101-tap FIR, 300-3400 Hz; 3-sample
+    Wiener)."""
     nyquist = 0.5 * fs
-    sos = butter_bandpass_sos(5, lowcut / nyquist, highcut / nyquist)
-    return filtfilt_sos_conv(sos, signal)
+    if method == "butterworth":
+        sos = butter_bandpass_sos(5, lowcut / nyquist, highcut / nyquist)
+        return filtfilt_sos_conv(sos, signal)
+    if method == "fir":
+        taps = firwin_bandpass(filter_order, lowcut / nyquist,
+                               highcut / nyquist)
+        return filtfilt(taps, (1.0,), signal)
+    if method == "wiener":
+        return wiener(signal)
+    raise ValueError("Unknown filter method. Available methods: "
+                     "'butterworth', 'fir', 'wiener'")

@@ -1,11 +1,25 @@
-"""GCC-PHAT over all mic pairs (counterpart of the JAX package's
+"""Generalized cross-correlation (counterpart of the JAX package's
 ops/gccphat.py; reference: utils.py:108-119).
 
-``corr = irfft( whiten(F s_i * conj F s_j) * band )`` for every pair in one
-call to kernel K1 (ops/cuda_fft.gcc_all_pairs, its plain twin on the CPU).
-The physical lag convention decodes the circular output.  The other
-weightings, streaming GCC and the reference lag axis belong to later
-slices.
+``corr = irfft( weight(F s_i * conj F s_j) * band )``.  Two branches, as
+in the JAX package:
+
+* fused: PHAT for every pair in one call to kernel K1
+  (ops/cuda_fft.gcc_all_pairs) when the transform length is a power of two
+  no shorter than the signals and ``use_pallas != 'never'``;
+* unfused: ``torch.fft`` spectra, the weighting (PHAT through kernel K7,
+  ``cuda_fft.whiten``; SCOT, Roth, CC and ML as plain tensor arithmetic,
+  which had no TPU kernel either), the band mask, the inverse.  It is
+  taken for the other weightings, for ``use_pallas='never'`` and for the
+  lengths K1 cannot take.
+
+K1 has no scene axis yet: PHAT on signals with leading axes at a length K1
+takes raises ``NotImplementedError`` for a CUDA tensor, and takes the
+unfused branch (plain arithmetic) on the CPU.  ``phat_correlation`` (one
+pair) at a power-of-two length no shorter than both signals runs K4a (both
+spectra in one launch) and K9 (``cuda_fft.whitened_corr``); at any other
+length it takes the unfused route.  On the CPU the kernels' plain twins
+run.  Streaming GCC and the reference lag axis belong to later slices.
 """
 
 from __future__ import annotations
@@ -16,9 +30,72 @@ import numpy as np
 import torch
 
 from . import cuda_fft
-from .fftutils import fft_length
+from .fftutils import fft_length, irfft_n, rfft_n
 
 PHAT_EPS = cuda_fft.PHAT_EPS
+
+#: Generalized cross-correlation weightings (Knapp & Carter 1976): 'phat'
+#: is the reference's estimator; 'cc' unweighted; 'roth' divides by the
+#: first channel's auto-spectrum; 'scot' by the geometric mean of both;
+#: 'ml' is Hannan-Thomson, meaningful only with averaged spectra.
+GCC_WEIGHTINGS = ("phat", "scot", "roth", "cc", "ml")
+
+
+def _is_pow2(n: int) -> bool:
+    return n >= 4 and not n & (n - 1)
+
+
+def _weighted_cross(s_i: torch.Tensor, s_j: torch.Tensor, weighting: str,
+                    eps: float) -> torch.Tensor:
+    """s_i * conj(s_j) under a GCC frequency weighting.  PHAT whitens the
+    fresh cross-spectrum in place through kernel K7 (its twin on the CPU);
+    the other weightings are plain tensor arithmetic over the channels'
+    auto power spectra."""
+    if weighting not in GCC_WEIGHTINGS:
+        raise ValueError(f"unknown GCC weighting {weighting!r}; expected one "
+                         f"of {GCC_WEIGHTINGS}")
+    cross = s_i * torch.conj(s_j)
+    if weighting == "phat":
+        return cuda_fft.whiten(cross.contiguous(), eps, inplace=True)
+    if weighting == "cc":
+        return cross
+    auto_i = s_i.real ** 2 + s_i.imag ** 2
+    if weighting == "roth":
+        return cross / (auto_i + eps)
+    auto_j = s_j.real ** 2 + s_j.imag ** 2
+    if weighting == "scot":
+        return cross / (torch.sqrt(auto_i * auto_j) + eps)
+    mag2 = cross.real ** 2 + cross.imag ** 2                    # 'ml'
+    # Coherence clamped away from 1, where the weight diverges.
+    coh2 = torch.clamp(mag2 / torch.clamp(auto_i * auto_j, min=eps),
+                       max=1.0 - 1e-4)
+    return cross * (coh2 / (torch.sqrt(mag2) * (1.0 - coh2) + eps))
+
+
+def phat_correlation(sig1: torch.Tensor, sig2: torch.Tensor,
+                     nfft: Optional[int] = None, eps: float = PHAT_EPS,
+                     weighting: str = "phat") -> torch.Tensor:
+    """Weighted cross-correlation of two signals (leading axes broadcast),
+    circular order; nfft=None is the reference's exact length n1+n2-1."""
+    n1, n2 = sig1.shape[-1], sig2.shape[-1]
+    n = nfft if nfft is not None else fft_length(n1, n2, "exact")
+    if (weighting == "phat" and _is_pow2(n) and max(n1, n2) <= n
+            and sig1.dtype == torch.float32 and sig2.dtype == torch.float32):
+        # numpy's rule, not torch.broadcast_shapes: that one imports
+        # torch.fx's symbolic shapes (and sympy) on first use, seconds of a
+        # cold call.
+        lead = np.broadcast_shapes(sig1.shape[:-1], sig2.shape[:-1])
+        width = max(n1, n2)
+        rows = [torch.nn.functional.pad(
+            s.expand(lead + s.shape[-1:]).reshape(-1, s.shape[-1]),
+            (0, width - s.shape[-1])) for s in (sig1, sig2)]
+        spec = cuda_fft.fft_real(torch.cat(rows).contiguous(), n)
+        b = rows[0].shape[0]
+        mask = cuda_fft.band_mask(n, None, None, device=sig1.device)
+        corr = cuda_fft.whitened_corr(spec[:b], spec[b:], mask, n, eps)
+        return corr.reshape(lead + (n,))
+    r = _weighted_cross(rfft_n(sig1, n), rfft_n(sig2, n), weighting, eps)
+    return irfft_n(r, n).to(sig1.dtype)
 
 
 def gcc_phat_all_pairs(signals: torch.Tensor,
@@ -26,22 +103,41 @@ def gcc_phat_all_pairs(signals: torch.Tensor,
                        pairs_j: Sequence[int],
                        nfft: Optional[int] = None,
                        eps: float = PHAT_EPS,
+                       use_pallas: str = "auto",
                        band: Optional[Tuple[float, float]] = None,
                        fs: Optional[float] = None,
                        weighting: str = "phat") -> torch.Tensor:
-    """PHAT correlations for every pair: signals (M, N) -> (P, nfft),
-    circular order.  ``band=(lo_hz, hi_hz)`` with ``fs`` zeroes the
-    whitened bins outside the band (band-limited PHAT, SURVEY.md Q5)."""
-    if weighting != "phat":
-        raise NotImplementedError(
-            f"gcc_weighting={weighting!r} is not ported yet; the scot/roth/"
-            "cc weightings follow in a later slice")
+    """GCC for every pair: signals (..., M, N) -> (..., P, nfft), circular
+    order, PHAT-weighted by default.  ``band=(lo_hz, hi_hz)`` with ``fs``
+    zeroes the weighted bins outside the band (band-limited PHAT,
+    SURVEY.md Q5).  K1 runs for PHAT on (M, N) signals at a power-of-two
+    nfft >= N unless ``use_pallas='never'``; the other weightings, 'never'
+    and the other lengths take the unfused branch."""
     n_samp = signals.shape[-1]
     n = nfft if nfft is not None else fft_length(n_samp, n_samp, "exact")
-    mask = cuda_fft.band_mask(n, band, fs, dtype=signals.dtype,
-                              device=signals.device)
-    return cuda_fft.gcc_all_pairs(signals.contiguous(), pairs_i, pairs_j, n,
-                                  mask, eps)
+    if band is not None and fs is None:
+        raise ValueError("band-limited PHAT requires fs")
+    real = signals.real.dtype if signals.is_complex() else signals.dtype
+    mask = cuda_fft.band_mask(n, band, fs, dtype=real, device=signals.device)
+    if (use_pallas != "never" and weighting == "phat" and n_samp <= n
+            and _is_pow2(n)):
+        if signals.dim() == 2:
+            return cuda_fft.gcc_all_pairs(signals.contiguous(), pairs_i,
+                                          pairs_j, n, mask, eps)
+        if signals.is_cuda:
+            raise NotImplementedError(
+                "PHAT GCC over leading axes needs K1's scene axis, which is "
+                "not ported yet (a later slice brings it)")
+    pi = torch.as_tensor(list(pairs_i), dtype=torch.long,
+                         device=signals.device)
+    pj = torch.as_tensor(list(pairs_j), dtype=torch.long,
+                         device=signals.device)
+    spec = rfft_n(signals, n)
+    white = _weighted_cross(spec[..., pi, :], spec[..., pj, :], weighting,
+                            eps)
+    if band is not None:
+        white = white * mask
+    return irfft_n(white, n).to(signals.dtype)
 
 
 def lags_physical(n1: int, n: int) -> np.ndarray:

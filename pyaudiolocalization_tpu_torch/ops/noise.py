@@ -1,5 +1,6 @@
-"""Counter-based Gaussian measurement noise: the plain PyTorch twin of the
-generator the render kernels run in-kernel (``csrc/philox.cuh``).
+"""Counter-based Gaussian measurement noise and the noise-null bootstrap's
+uniform draws: the plain PyTorch twin of the generator the render and
+bootstrap kernels run in-kernel (``csrc/philox.cuh``).
 
 The TPU kernels draw their noise from the TPU core's own random bits
 (``pltpu.prng_seed`` / ``prng_random_bits``,
@@ -91,6 +92,21 @@ def normal(seeds: torch.Tensor, num_mics: int,
     t = torch.arange(num_samples, dtype=torch.int64, device=seeds.device)
     w0, w1 = philox_bits(key0, key1, t)
     return bits_to_normal(w0 >> 8, w1 >> 8)
+
+
+def uniform(seeds: torch.Tensor, num_samples: int) -> torch.Tensor:
+    """(B, num_samples) float32 uniforms in [-0.5, 0.5) for draw seeds
+    (B, 2) int32: draw d's stream is keyed by its two seed words read as
+    uint32, sample t draws counter t, and the value is the first output
+    word reinterpreted as int32 times 2^-32 (the noise-null bootstrap's
+    draw, ``csrc/philox.cuh`` ``philox_uniform``; the TPU kernel bitcasts
+    its raw bits the same way, pallas_fft.py:1305-1307).  The int32 ->
+    float32 conversion rounds as the kernel's does; the scale is exact."""
+    s = seeds.to(torch.int64) & _MASK
+    t = torch.arange(num_samples, dtype=torch.int64, device=seeds.device)
+    w0, _ = philox_bits(s[:, 0:1], s[:, 1:2], t)
+    signed = w0 - ((w0 >> 31) << 32)
+    return signed.to(torch.float32) * (2.0 ** -32)
 
 
 def add_noise(signals: torch.Tensor, snr_db: torch.Tensor,

@@ -1,14 +1,18 @@
 """Peak detection with scipy.signal.find_peaks semantics (counterpart of
 the JAX package's ops/peaks.py; reference: utils.py:151-152).
 
-Ported: the strict three-point local maxima and the two-threshold
-candidate selection the physical ladder uses.  Candidates are the top-k
-local maxima by height (a stable sort, ties to the lower index like
+Ported: the strict three-point local maxima, the full-row top-k candidate
+selection with an optional lag-window merge, and the two-threshold
+selection of the windowed ladder.  Candidates are the top-k local maxima
+by height (a stable sort, ties to the lower index like
 ``jax.lax.top_k``); distance pruning removes smaller peaks first, with
-scipy's strict ``< distance`` rule.
+scipy's strict ``< distance`` rule.  Plateau peaks (parity mode) belong to
+a later slice.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -30,6 +34,32 @@ def compact_valid(pos: torch.Tensor, heights: torch.Tensor,
     order = torch.sort((~keep).to(torch.uint8), dim=-1, stable=True).indices
     return (torch.gather(pos, -1, order), torch.gather(heights, -1, order),
             torch.gather(keep, -1, order))
+
+
+def select_peaks(x: torch.Tensor, threshold: torch.Tensor, distance: int,
+                 k: int = 128, window_mask: Optional[torch.Tensor] = None):
+    """Top-k strict local maxima of ``x`` with height >= ``threshold`` and
+    a minimum separation ``distance``.  Returns (pos, heights, keep),
+    ordered by descending height (stable); ``keep`` marks candidates that
+    exist and survive distance pruning.  With ``window_mask`` (pre-dilated
+    by the caller) the top-k inside the window are merged in, so the
+    tallest surviving in-window peak is present even when it is globally
+    short; a duplicate position is suppressed by its earlier copy."""
+    mask = local_maxima(x) & (x >= threshold)
+    neg = torch.full_like(x, -float("inf"))
+    vals = torch.where(mask, x, neg)
+    heights, pos = _top_k(vals, k)
+    if window_mask is not None:
+        h2, p2 = _top_k(torch.where(window_mask, vals, neg), k)
+        heights, order = torch.sort(torch.cat([heights, h2], -1), dim=-1,
+                                    descending=True, stable=True)
+        pos = torch.gather(torch.cat([pos, p2], -1), -1, order)
+    keep = torch.isfinite(heights)
+    later = torch.arange(heights.shape[-1], device=x.device)
+    for r in range(heights.shape[-1]):
+        close = ((pos - pos[..., r:r + 1]).abs() < distance) & (later > r)
+        keep = keep & ~(close & keep[..., r:r + 1])
+    return pos, heights, keep
 
 
 def select_peaks_two(x: torch.Tensor, thr_a: torch.Tensor,

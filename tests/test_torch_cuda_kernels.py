@@ -21,7 +21,9 @@ import pytest
 import torch
 
 from pyaudiolocalization_tpu_torch import DEFAULT_CONFIG, localize_sound_source
+from pyaudiolocalization_tpu_torch.models import tdoa
 from pyaudiolocalization_tpu_torch.ops import cuda_fft as cf
+from pyaudiolocalization_tpu_torch.ops import gccphat
 from pyaudiolocalization_tpu_torch.ops import noise as noise_ops
 from pyaudiolocalization_tpu_torch.ops.delay import fade_window
 from pyaudiolocalization_tpu_torch.parallel import (SweepSpec, localize_batch,
@@ -92,6 +94,108 @@ def test_bootstrap_peaks_kernel_matches_plain(cuda, rows, length, nfft):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows,n_samp,nfft", [(1000, 44100, 65536),
+                                              (999, 1500, 4096),
+                                              (3, 100, 128)])
+def test_noise_bootstrap_peaks_kernel_matches_plain(cuda, rows, n_samp, nfft):
+    """K6: the twin's integers are the same on the card and the CPU, and the
+    kernel's peaks equal the twin's (odd draw counts; n_samp <= nfft/2 is
+    the TPU kernel's pruned shape)."""
+    g = _gen(cuda)
+    s1 = cf.fft_real_plain(torch.randn((1, n_samp), generator=g,
+                                       device=cuda), nfft)[0].contiguous()
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (rows, 2), generator=g,
+                          dtype=torch.int32, device=cuda)
+    head = seeds[:4]
+    assert torch.equal(noise_ops.uniform(head, 1000).cpu(),
+                       noise_ops.uniform(head.cpu(), 1000))
+    before = cf.LAUNCHES["noise_bootstrap_peaks"]
+    got = cf.noise_bootstrap_peaks(s1, seeds, n_samp, nfft)
+    assert cf.LAUNCHES["noise_bootstrap_peaks"] == before + 1
+    want = cf.noise_bootstrap_peaks_plain(s1, seeds, n_samp, nfft)
+    torch.cuda.synchronize()
+    assert got.shape == (rows,)
+    assert float((got - want).abs().max()) < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 44100), (3, 1025), (6, 32769), (7,)])
+def test_whiten_kernel_matches_plain(cuda, shape):
+    """K7 rounds as the plain float32 expression does: equal to 1e-6
+    relative (the operations are the same, correctly rounded)."""
+    g = _gen(cuda)
+    spec = torch.complex(torch.randn(shape, generator=g, device=cuda),
+                         torch.randn(shape, generator=g, device=cuda))
+    spec[..., 0] = 0.0                       # a silent bin stays silent
+    want = cf.whiten_plain(spec)
+    got = cf.whiten(spec)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    assert bool((got[..., 0] == 0).all())
+    own = spec.clone()
+    assert cf.whiten(own, inplace=True).data_ptr() == own.data_ptr()
+    assert torch.equal(own, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,length,nfft", [(1, 44100, 65536),
+                                              (3, 3000, 4096),
+                                              (5, 100, 128)])
+def test_whitened_corr_kernel_matches_plain(cuda, rows, length, nfft):
+    g = _gen(cuda)
+    x = torch.randn((2 * rows, length), generator=g, device=cuda)
+    spec = cf.fft_real(x, nfft)
+    a, b = spec[:rows].contiguous(), spec[rows:].contiguous()
+    for band in ((300.0, 3400.0), None):
+        mask = cf.band_mask(nfft, band, 8000.0, device=cuda)
+        before = cf.LAUNCHES["whitened_corr"]
+        got = cf.whitened_corr(a, b, mask, nfft)
+        assert cf.LAUNCHES["whitened_corr"] == before + 1
+        want = cf.whitened_corr_plain(a, b, mask, nfft)
+        torch.cuda.synchronize()
+        assert got.shape == (rows, nfft)
+        assert float((got - want).abs().max()) < 1e-6
+
+
+@pytest.mark.cuda
+def test_options_path_on_the_card_matches_the_cpu_path(cuda):
+    """Small scenes: the options (noise null, SCOT + median + FIR + DBSCAN
+    + robust LM, no lag gate + adaptive + Wiener) and the single-pair
+    correlation run their kernels on the card and find the CPU's TDOAs."""
+    base = copy.deepcopy(DEFAULT_CONFIG)
+    base.update(fs=8000, duration=0.25, source_position=[0.2, 0.6, 0.4],
+                signal_type="chirp")
+    base["localization"].update(lag_mode="physical", sync_mode="none",
+                                max_reflections=1, num_bootstrap=64)
+    options = [
+        (dict(bootstrap_mode="noise"), "noise_bootstrap_peaks"),
+        (dict(gcc_weighting="scot", threshold_method="median",
+              filter_method="fir", clustering_method="dbscan",
+              solver="lm-robust", analyze_correlation=False), "delay_sum"),
+        (dict(max_expected_delay=None, threshold_method="adaptive",
+              filter_method="wiener"), "gcc_all_pairs")]
+    for change, kernel in options:
+        cfg = copy.deepcopy(base)
+        cfg["localization"].update(change)
+        cpu = localize_sound_source(cfg, device="cpu", dtype=torch.float64)
+        cf.reset_launches()
+        card = localize_sound_source(cfg, device=cuda, dtype=torch.float32)
+        assert cf.LAUNCHES[kernel] > 0, (change, cf.LAUNCHES)
+        np.testing.assert_allclose(card["tdoas"], cpu["tdoas"], atol=1e-6)
+    sig = torch.randn((2, 2000), generator=_gen(cuda), device=cuda)
+    shifted = torch.roll(sig[0], 7)
+    cf.reset_launches()
+    exact = tdoa.get_time_delays_phat(sig[0], shifted, 8000.0,
+                                      lag_mode="physical")
+    assert cf.LAUNCHES["whiten"] == 1
+    pow2 = tdoa.get_time_delays_phat(sig[0], shifted, 8000.0,
+                                     lag_mode="physical", nfft=4096)
+    assert cf.LAUNCHES["fft_real"] == 1 and cf.LAUNCHES["whitened_corr"] == 1
+    for res in (exact, pow2):
+        assert abs(float(res.delays[0]) * 8000.0 + 7) < 1e-3
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m,paths,total,out,nfft", [
     (4, 22, 50292, 44100, 65536), (3, 5, 3500, 3000, 4096),
     (1, 1, 100, 100, 128)])
@@ -136,6 +240,21 @@ def test_wrappers_validate_cuda_inputs(cuda):
                                                         device=cuda))
     with pytest.raises(ValueError, match="all on CUDA"):
         cf.bootstrap_peaks(cf.fft_real(x, 128)[0].cpu(), x, 128)
+
+
+@pytest.mark.cuda
+def test_gcc_leading_axes_raise_on_the_card(cuda):
+    """PHAT at a length K1 takes, over a leading axis, needs K1's scene
+    axis: the card refuses it rather than run library FFTs; the other
+    weightings and use_pallas='never' take the unfused branch."""
+    x = torch.randn((2, 4, 1500), device=cuda)
+    pi, pj = _pairs(4)
+    with pytest.raises(NotImplementedError, match="scene axis"):
+        gccphat.gcc_phat_all_pairs(x, pi, pj, nfft=2048)
+    for kw in (dict(weighting="scot"), dict(use_pallas="never")):
+        got = gccphat.gcc_phat_all_pairs(x, pi, pj, nfft=2048, **kw)
+        want = gccphat.gcc_phat_all_pairs(x.cpu(), pi, pj, nfft=2048, **kw)
+        assert float((got.cpu() - want).abs().max()) < 1e-5
 
 
 def test_wrappers_refuse_devices_other_than_cpu_and_cuda():

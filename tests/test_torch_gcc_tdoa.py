@@ -62,8 +62,8 @@ def test_butterworth_design_and_filter_match_jax(rng):
     for fs in (8000.0, 44100.0):
         _close(tfilt.noise_reduction(torch.from_numpy(x), fs),
                jfilt.noise_reduction(jnp.asarray(x), fs))
-    with pytest.raises(NotImplementedError):
-        tfilt.noise_reduction(torch.from_numpy(x), FS, method="wiener")
+    with pytest.raises(ValueError, match="Unknown filter method"):
+        tfilt.noise_reduction(torch.from_numpy(x), FS, method="bogus")
 
 
 @pytest.mark.parametrize("m,band", [(4, BAND), (4, None), (3, BAND)])
@@ -117,10 +117,10 @@ def test_time_delays_from_corr_matches_jax(src, max_delay):
                                rtol=0, atol=1e-12)
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
     _close(got.corr, want.corr)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="parity"):
         ttdoa.time_delays_from_corr(torch.from_numpy(corr), 2000, 2000, FS,
-                                    threshold_method="median",
-                                    max_expected_delay=max_delay)
+                                    max_expected_delay=max_delay,
+                                    lag_mode="reference")
 
 
 def test_peak_selection_matches_jax(rng):
@@ -183,8 +183,8 @@ def test_permuted_rows_are_permutations():
     assert rows.shape == (7, 50)
     assert torch.equal(torch.sort(rows, -1).values, x.expand(7, 50))
     assert not torch.equal(rows[0], rows[1])
-    with pytest.raises(NotImplementedError):
-        ttdoa.bootstrap_significance(x, x, None, 4, bootstrap_mode="noise")
+    with pytest.raises(ValueError, match="noise"):
+        ttdoa.bootstrap_significance(x, x, None, 4, bootstrap_mode="bogus")
 
 
 def test_bootstrap_plain_matches_tpu_kernels_interpret(rng):

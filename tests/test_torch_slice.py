@@ -83,10 +83,8 @@ def test_slice_defaults_to_cpu_and_is_seeded():
 
 @pytest.mark.parametrize("key,value", [
     ("lag_mode", "reference"), ("sync_mode", "reference"),
-    ("solver", "srp"), ("gcc_weighting", "scot"),
-    ("bootstrap_mode", "noise"), ("filter_method", "fir"),
-    ("clustering_method", "dbscan"), ("max_expected_delay", None),
-    ("threshold_method", "median")])
+    ("solver", "srp"), ("solver", "srp+lm"), ("solver", "beam"),
+    ("solver", "music"), ("solver", "capon")])
 def test_modes_outside_the_slice_raise(key, value):
     cfg = _config()
     cfg["localization"][key] = value
@@ -98,9 +96,9 @@ def test_api_refusals():
     cfg = _config()
     with pytest.raises(NotImplementedError):
         tpkg.localize_sound_source(cfg, device="cpu", show_plots=True)
-    with pytest.raises(NotImplementedError):
-        tpkg.localize_sound_source(cfg, device="cpu",
-                                   calibration_data=[{"delay": 0.0}] * 4)
+    per_bin = dict(cfg, absorption_mode="per-bin")
+    with pytest.raises(NotImplementedError, match="per-bin"):
+        tpkg.localize_sound_source(per_bin, device="cpu")
     with pytest.raises(NotImplementedError):
         tpkg.localize_sound_source(cfg, device="cpu", use_simulation=False,
                                    audio_files=["a.wav"] * 4)
