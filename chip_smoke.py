@@ -30,7 +30,18 @@ Drives the port's main paths on ``cuda`` at full width (4 mics, 44.1 kHz,
    noise, then K2) per scene on the same draws, the hit rate and median
    error against the JAX sweep's, ``localize_batch`` on 256 numpy-built
    scenes against the JAX answers for the first 64, warm scenes/s, and a
-   stage breakdown.
+   stage breakdown;
+6. SRP and multi-source, against ``tests/data/torch_srp_golden.json``:
+   ``localize_sound_source`` with ``solver='srp'`` and ``'srp+lm'`` on
+   both scenes, cold and warm; the reverberant sweep of
+   ``bench_reverberant_sweep`` (512 scenes, 37 paths a mic) with each
+   solver, statistics against the JAX sweep's, warm scenes/s and a stage
+   breakdown; the multi-source cube of ``bench_multi_source`` (128 scenes)
+   with spatial and claim suppression; ``localize_batch`` srp on 32
+   numpy-built scenes against the JAX answers; and batched GCC-PHAT pairs/s
+   at ``bench_gcc_phat``'s shape (256 x 4 x 44,100, nfft 65,536).  Each
+   path must launch K3 and K1 (the all-pairs GCC over every scene) and no
+   windowed kernel.
 
 Every path runs with the launch counts set to 0 just before it and read
 just after; each must have launched its kernels.  Any failure raises, and
@@ -43,6 +54,7 @@ the script exits non-zero.  The last line is ``{"ok": true, "device":
 from __future__ import annotations
 
 import copy
+import dataclasses
 import importlib.util
 import json
 import math
@@ -55,11 +67,14 @@ REPO = Path(__file__).resolve().parent
 SLICE_GOLDEN = REPO / "tests" / "data" / "torch_slice_golden.json"
 SWEEP_GOLDEN = REPO / "tests" / "data" / "torch_sweep_golden.json"
 OPTIONS_GOLDEN = REPO / "tests" / "data" / "torch_options_golden.json"
+SRP_GOLDEN = REPO / "tests" / "data" / "torch_srp_golden.json"
 FS = 44100.0
 NFFT = 65536
 N = 44100
 SWEEP_SCENES = 512
 BATCH_SCENES = 256
+MULTI_SCENES = 128
+GCC_SCENES = 256      # bench.py's bench_gcc_phat batch
 # H100 SXM data sheet: HBM3 bandwidth and the float32 rate outside the
 # tensor cores (at the full 700 W power limit).
 PEAK_BYTES_S = 3.35e12
@@ -178,6 +193,7 @@ def kernel_phase(cf, torch):
     Philox normals, equal integers in both, float32 log/cos within a few
     units in the last place."""
     from pyaudiolocalization_tpu_torch.ops.delay import fade_window
+    from pyaudiolocalization_tpu_torch.ops.fftutils import next_pow2
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -205,15 +221,25 @@ def kernel_phase(cf, torch):
         return base, tau, gains.contiguous(), snr, seeds, fade
 
     results = {}
-    # K3: render with finalize.  Main paths: the sweep's split render (512
-    # scenes, 1 path, noise, 44,356 padded samples) and the single scene's
-    # (22 paths = direct + 21 image sources of 3 planes at order 3, 50,292
-    # padded samples, no noise).
-    for tag, (b, m, paths, total, out, nfft, noise) in {
-            "main": (SWEEP_SCENES, 4, 1, 44356, N, NFFT, True),
-            "scene": (1, 4, 22, 50292, N, NFFT, True),
-            "api": (1, 4, 22, 50292, N, NFFT, False),
-            "edge": (3, 3, 5, 3500, 3000, 4096, True)}.items():
+    reverb, multi = srp_specs()
+    # K3: render.  Main paths: the sweep's split render (512 scenes, 1
+    # path, noise, 44,356 padded samples), the single scene's (22 paths =
+    # direct + 21 image sources of 3 planes at order 3, 50,292 padded
+    # samples, no noise), the reverberant SRP sweep's (512 scenes, 37
+    # paths, noise) and the multi-source cube's raw per-source renders (128
+    # scenes x 2 sources, 8 mics, no finalize); raw renders are held
+    # relative to their peak.
+    for tag, (b, m, paths, total, out, nfft, noise, fin) in {
+            "main": (SWEEP_SCENES, 4, 1, 44356, N, NFFT, True, True),
+            "scene": (1, 4, 22, 50292, N, NFFT, True, True),
+            "api": (1, 4, 22, 50292, N, NFFT, False, True),
+            "reverb": (SWEEP_SCENES, 4, 37, reverb.total_samples,
+                       reverb.num_samples, next_pow2(reverb.total_samples),
+                       True, True),
+            "multi": (2 * MULTI_SCENES, 8, 1, multi.total_samples,
+                      multi.num_samples, next_pow2(multi.total_samples),
+                      False, False),
+            "edge": (3, 3, 5, 3500, 3000, 4096, True, True)}.items():
         base, tau, gains, snr, seeds, fade = scene_inputs(b, m, paths,
                                                           total, out)
         nz = (snr, seeds) if noise else (None, None)
@@ -221,33 +247,43 @@ def kernel_phase(cf, torch):
                       + b * m * out)
         res = compare(
             f"delay_sum[{tag}] B={b} M={m} paths={paths} nfft={nfft} "
-            f"out={out} noise={noise}",
-            lambda: cf.delay_sum(base, tau, gains, nfft, out, fade, True,
+            f"out={out} noise={noise} finalize={fin}",
+            lambda: cf.delay_sum(base, tau, gains, nfft, out, fade, fin,
                                  *nz),
             lambda: cf.delay_sum_plain(base, tau, gains, nfft, out, fade,
-                                       True, *nz),
-            tol=2e-5, reps=3 if b > 1 else 20,
+                                       fin, *nz),
+            tol=2e-5, reps=3 if b > 1 else 20, scale_by_max=not fin,
             least=bound(nbytes, render_ops(b, m, paths, nfft, out, noise)))
         if tag == "main":
             results["delay_sum"] = res
 
-    # K1: all-pairs GCC-PHAT, band (300, 3400) Hz.
-    # "no_gate": the alias-free length of max_expected_delay=None, whitening
-    # every bin (the Wiener front end has no band).
-    for tag, (m, length, nfft, band) in {
-            "main": (4, N, NFFT, (300.0, 3400.0)),
-            "no_gate": (4, N, 2 * NFFT, None),
-            "edge": (3, 3000, 4096, (300.0, 3400.0))}.items():
+    # K1: all-pairs GCC-PHAT, band (300, 3400) Hz.  One scene: the api's
+    # (B=None) and, at the alias-free length of max_expected_delay=None,
+    # whitening every bin (the Wiener front end has no band).  A scene
+    # axis: bench_gcc_phat's batch (recorded; PHAT over every bin), the
+    # reverberant SRP sweep's and the multi-source cube's, and an odd edge
+    # (odd scenes, mics and pairs).
+    for tag, (b, m, length, nfft, band) in {
+            "api": (None, 4, N, NFFT, (300.0, 3400.0)),
+            "no_gate": (None, 4, N, 2 * NFFT, None),
+            "main": (GCC_SCENES, 4, N, NFFT, None),
+            "reverb": (SWEEP_SCENES, 4, reverb.num_samples, reverb.nfft,
+                       (300.0, 3400.0)),
+            "multi": (MULTI_SCENES, 8, multi.num_samples, multi.nfft,
+                      (300.0, 3400.0)),
+            "edge": (5, 3, 1500, 2048, (300.0, 3400.0))}.items():
         pi, pj = pairs(m)
-        sig = randn(m, length).contiguous()
+        sig = (randn(m, length) if b is None
+               else randn(b, m, length)).contiguous()
         mask = cf.band_mask(nfft, band, FS, device=dev)
-        nbytes = 4 * (m * length + len(pi) * nfft + nfft // 2 + 1)
+        scenes = b or 1
+        nbytes = 4 * (scenes * (m * length + len(pi) * nfft) + nfft // 2 + 1)
         res = compare(
-            f"gcc_all_pairs[{tag}] M={m} P={len(pi)} nfft={nfft}",
+            f"gcc_all_pairs[{tag}] B={b} M={m} P={len(pi)} nfft={nfft}",
             lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
             lambda: cf.gcc_all_pairs_plain(sig, pi, pj, nfft, mask),
-            tol=1e-6, reps=20,
-            least=bound(nbytes, gcc_ops(1, m, len(pi), nfft)))
+            tol=1e-6, reps=20 if scenes == 1 else 3,
+            least=bound(nbytes, gcc_ops(scenes, m, len(pi), nfft)))
         if tag == "main":
             results["gcc_all_pairs"] = res
 
@@ -739,13 +775,14 @@ def sweep_stages(torch, sw, spec):
         spec, gen, SWEEP_SCENES, dt, dev))
     base, seeds = stage("draw base signals + seeds", lambda: sw._draw_signals(
         spec, gen, SWEEP_SCENES, dt, dev))
-    paths = stage("paths", lambda: sw._source_paths(spec, sources, mics, c))
+    paths = stage("paths", lambda: sw._source_paths(spec, sources[:, 0],
+                                                    mics, c))
     pi, pj = spec.pairs
     wq = sw._tdoa_window_wq(spec)
 
     def k5():
         padded = torch.zeros((SWEEP_SCENES, spec.total_samples), device=dev)
-        padded[:, :spec.num_samples] = base
+        padded[:, :spec.num_samples] = base[:, 0]
         fade = fade_window(spec.total_samples, dtype=dt,
                            device=dev)[:spec.num_samples].contiguous()
         return cf.scene_windowed(
@@ -800,25 +837,7 @@ def sweep_phase(cf, torch, sweep_golden, launches):
         raise AssertionError("non-finite sweep estimates")
 
     # (b) statistics against the JAX sweep.
-    err = fused.error.double().cpu()
-    hit = float((err < 0.1).double().mean())
-    median = float(err.median())
-    want = sweep_golden["sweep"]
-    n1, n2 = err.numel(), want["num_scenes"]
-    pooled = (hit * n1 + want["hit_rate"] * n2) / (n1 + n2)
-    pooled = min(max(pooled, 1.0 / (n1 + n2)), 1.0 - 1.0 / (n1 + n2))
-    sigma = math.sqrt(pooled * (1 - pooled) * (1 / n1 + 1 / n2))
-    log(f"sweep statistics: hit rate {hit:.4f} (JAX {want['hit_rate']:.4f},"
-        f" 3 sigma = {3 * sigma:.4f}), median error {median:.5f} m (JAX "
-        f"{want['median_error_m']:.5f} m), rmse "
-        f"{float(err.pow(2).mean().sqrt()):.5f} m")
-    if abs(hit - want["hit_rate"]) > 3 * sigma:
-        raise AssertionError("sweep hit rate departs from the JAX sweep's")
-    # A broken estimator moves the median by orders of magnitude; two
-    # draws of 128 and 512 scenes move it by well under a factor of 2.
-    if not want["median_error_m"] / 2 <= median <= 2 * want["median_error_m"]:
-        raise AssertionError("sweep median error departs from the JAX "
-                             "sweep's by more than a factor of 2")
+    check_statistics("sweep", fused.error, sweep_golden["sweep"])
 
     # (c) localize_batch on numpy-built scenes.
     builder = _load_scene_builder()
@@ -855,6 +874,219 @@ def sweep_phase(cf, torch, sweep_golden, launches):
     sweep_stages(torch, sw, spec)
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: SRP and multi-source
+# ---------------------------------------------------------------------------
+
+SRP_PATH = ("delay_sum", "gcc_all_pairs")
+WINDOWED = ("gcc_windowed", "scene_windowed")
+
+
+def _spec(args):
+    from pyaudiolocalization_tpu_torch.parallel import sweep as sw
+
+    def tup(v):
+        return tuple(tup(x) for x in v) if isinstance(v, list) else v
+    return sw.SweepSpec(**{k: tup(v) for k, v in args.items()})
+
+
+def srp_specs():
+    """bench.py's reverberant SRP sweep and multi-source cube, as the SRP
+    golden records them."""
+    golden = json.loads(SRP_GOLDEN.read_text())
+    return (_spec(golden["reverberant"]["spec"]),
+            _spec(golden["multi_spatial"]["spec"]))
+
+
+def check_statistics(name, err, want):
+    """Hit rate within 3 binomial sigma of the JAX sweep's and median error
+    within a factor of 2 (a broken estimator moves the median by orders of
+    magnitude; two draws of a few hundred scenes move it by well under a
+    factor of 2).  ``err`` holds every source's error of every scene."""
+    err = err.double().cpu().flatten()
+    hit = float((err < 0.1).double().mean())
+    median = float(err.median())
+    n1, n2 = err.numel(), want.get("num_errors", want["num_scenes"])
+    pooled = (hit * n1 + want["hit_rate"] * n2) / (n1 + n2)
+    pooled = min(max(pooled, 1.0 / (n1 + n2)), 1.0 - 1.0 / (n1 + n2))
+    sigma = math.sqrt(pooled * (1 - pooled) * (1 / n1 + 1 / n2))
+    log(f"{name} statistics: hit rate {hit:.4f} (JAX {want['hit_rate']:.4f},"
+        f" 3 sigma = {3 * sigma:.4f}), median error {median:.5f} m (JAX "
+        f"{want['median_error_m']:.5f} m), rmse "
+        f"{float(err.pow(2).mean().sqrt()):.5f} m over {n1} errors")
+    if abs(hit - want["hit_rate"]) > 3 * sigma:
+        raise AssertionError(f"{name}: hit rate departs from the JAX "
+                             "sweep's")
+    if not want["median_error_m"] / 2 <= median <= 2 * want["median_error_m"]:
+        raise AssertionError(f"{name}: median error departs from the JAX "
+                             "sweep's by more than a factor of 2")
+
+
+def srp_sweep_stages(torch, sw, spec):
+    """Warm stage breakdown of one 512-scene SRP sweep (the split path:
+    K3, then K1 over every scene, the full ladder, the SRP search), each
+    stage timed with a synchronize on both sides."""
+    from pyaudiolocalization_tpu_torch.models import srp as srp_ops
+    from pyaudiolocalization_tpu_torch.models import tdoa as tdoa_ops
+    from pyaudiolocalization_tpu_torch.models.simulator import render_scene
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    c = spec.speed_of_sound
+    n = spec.num_samples
+    pi, pj = spec.pairs
+    times = {}
+
+    def stage(name, fn):
+        out, seconds = _wall(torch, fn)
+        times[name] = seconds * 1e3
+        return out
+
+    sources, mics, snr = stage("draw scenes", lambda: sw._random_scene(
+        spec, gen, SWEEP_SCENES, torch.float32, dev))
+    base, seeds = stage("draw base signals + seeds", lambda: sw._draw_signals(
+        spec, gen, SWEEP_SCENES, torch.float32, dev))
+    paths = stage("paths (image sources)", lambda: sw._source_paths(
+        spec, sources[:, 0], mics, c))
+    sigs = stage("K3 delay_sum", lambda: render_scene(
+        base[:, 0], paths.delays, paths.gains, spec.fs, spec.total_samples,
+        n, finalize=True, snr_db=snr, noise_seeds=seeds))
+    corr = stage("K1 gcc_all_pairs", lambda: sw._correlate(spec, sigs))
+    td = stage("TDOA ladder", lambda: -tdoa_ops.time_delays_from_corr(
+        corr, n, n, spec.fs, threshold_method=spec.threshold_method,
+        max_expected_delay=spec.max_tdoa).delays[..., 0])
+    lower, upper, kw = sw._srp_args(spec, corr)
+    ml = srp_ops._resolve_max_lag(kw["max_lag_samples"], mics, spec.fs, c)
+    coarse_fn, fine_fn = stage("SRP windows + pooling", lambda: srp_ops.
+                               _map_fns(corr, mics, pi, pj, spec.fs, c,
+                                        kw["pool_samples"], ml))
+    cell = (upper - lower) / srp_ops.COARSE_N
+
+    def coarse():
+        pts = srp_ops._grid_points(lower, upper, srp_ops.COARSE_N)
+        return srp_ops._take_point(pts, torch.argmax(coarse_fn(pts), -1))
+
+    center = stage("SRP coarse map (24^3)", coarse)
+    pos, _ = stage("SRP fine map (12^3)", lambda: srp_ops._fine_stage(
+        fine_fn, center, cell, 12))
+    est, _ = stage("SRP refine", lambda: srp_ops.axis_refine(
+        fine_fn, pos, cell, 12, lower, upper))
+    stage("covariance", lambda: sw.uncertainty_ops.position_covariance(
+        est, mics, pi, pj, td, c))
+    total = sum(times.values())
+    for name, ms in times.items():
+        log(f"  srp sweep stage {name}: {ms:.3f} ms "
+            f"({100 * ms / total:.1f} %)")
+    log(f"  srp sweep stages total: {total:.3f} ms for {SWEEP_SCENES} "
+        "scenes")
+
+
+def srp_phase(cf, torch, srp_golden, launches):
+    from pyaudiolocalization_tpu_torch import DEFAULT_CONFIG
+    from pyaudiolocalization_tpu_torch import localize_sound_source
+    from pyaudiolocalization_tpu_torch.ops import gccphat
+    from pyaudiolocalization_tpu_torch.parallel import sweep as sw
+
+    def record(name, fn, expect=SRP_PATH, forbid=WINDOWED):
+        torch.cuda.reset_peak_memory_stats()
+        out, counts = run_path(cf, name, fn, expect, forbid)
+        _add(launches, counts)
+        log(f"  peak device memory on {name}: "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+        return out
+
+    # (1) localize_sound_source with the SRP solvers, both scenes.
+    def api_scenes():
+        for solver in ("srp", "srp+lm"):
+            for name, cfg in scene_configs(DEFAULT_CONFIG).items():
+                cfg["localization"]["solver"] = solver
+                want = srp_golden["scenes"][f"{name}/{solver}"]
+                for run in ("cold", "warm"):
+                    start = time.perf_counter()
+                    res = localize_sound_source(cfg, device="cuda",
+                                                dtype=torch.float32)
+                    torch.cuda.synchronize()
+                    check_scene(f"{name}/{solver}", res, want,
+                                time.perf_counter() - start, run)
+                    if res["uncertainty"]["heuristic"] != want["heuristic"]:
+                        raise AssertionError(f"{name}/{solver}: heuristic "
+                                             "flag departs from the golden")
+
+    record("the api's SRP solvers", api_scenes,
+           SRP_PATH + ("fft_real", "bootstrap_peaks"))
+
+    # (2) the reverberant SRP sweep, each solver: statistics, warm rate.
+    reverb, multi = srp_specs()
+    for solver, key in (("srp", "reverberant"), ("srp+lm", "reverberant_lm")):
+        spec = dataclasses.replace(reverb, solver=solver)
+        if sw._mono_scene_eligible(spec) or sw._use_windowed(spec):
+            raise AssertionError(f"{solver}: the SRP sweep takes a windowed "
+                                 "path")
+        summary = record(f"the reverberant {solver} sweep",
+                         lambda: sw.monte_carlo_sweep(spec, 7, SWEEP_SCENES,
+                                                      device="cuda"))
+        if not bool(torch.isfinite(summary.results.estimate).all()):
+            raise AssertionError(f"{solver}: non-finite sweep estimates")
+        check_statistics(f"reverberant {solver} sweep",
+                         summary.results.error, srp_golden[key])
+        _, seconds = _wall(torch, lambda: sw.monte_carlo_sweep(
+            spec, 21, SWEEP_SCENES, device="cuda"))
+        log(f"warm reverberant {solver} sweep: "
+            f"{SWEEP_SCENES / seconds:.1f} scenes/s ({seconds:.3f} s for "
+            f"{SWEEP_SCENES} scenes)")
+    srp_sweep_stages(torch, sw, reverb)
+
+    # (3) the multi-source cube, spatial and claim suppression.
+    for sup in ("spatial", "claim"):
+        spec = dataclasses.replace(multi, suppression=sup)
+        summary = record(f"the multi-source {sup} sweep",
+                         lambda: sw.monte_carlo_sweep(spec, 7, MULTI_SCENES,
+                                                      device="cuda"))
+        if summary.results.estimate.shape != (MULTI_SCENES, 2, 3):
+            raise AssertionError("multi-source estimates of shape "
+                                 f"{tuple(summary.results.estimate.shape)}")
+        check_statistics(f"multi-source {sup} sweep", summary.results.error,
+                         srp_golden[f"multi_{sup}"])
+        _, seconds = _wall(torch, lambda: sw.monte_carlo_sweep(
+            spec, 21, MULTI_SCENES, device="cuda"))
+        log(f"warm multi-source {sup} sweep: "
+            f"{MULTI_SCENES / seconds:.1f} scenes/s ({seconds:.3f} s for "
+            f"{MULTI_SCENES} scenes)")
+
+    # (4) localize_batch srp on numpy-built scenes, per scene.
+    case = srp_golden["localize_batch"]
+    spec = _spec(case["spec"])
+    signals, _ = _load_scene_builder().batch_scenes(
+        case["seed"], case["num_scenes"], spec.fs, spec.duration,
+        spec.mic_positions, spec.speed_of_sound, spec.source_box_lo,
+        spec.source_box_hi)
+    signals = torch.as_tensor(signals, device="cuda")
+    est, _, td = record("localize_batch srp", lambda: sw.localize_batch(
+        spec, signals, spec.mic_positions, device="cuda"),
+        ("gcc_all_pairs",), WINDOWED + ("delay_sum",))
+    td_gap = float((td.double().cpu() - torch.tensor(case["tdoas"])).abs()
+                   .max()) * spec.fs
+    gaps = (est.double().cpu() - torch.tensor(case["estimates"])).norm(
+        dim=-1)
+    clear = torch.tensor(case["coarse_margin"]) > 1e-3
+    log(f"localize_batch srp vs JAX on {case['num_scenes']} scenes: max "
+        f"TDOA difference {td_gap:.4f} samples, max position difference "
+        f"{float(gaps[clear].max()):.3e} m on the {int(clear.sum())} scenes "
+        f"with a clear coarse margin, {float(gaps.max()):.3e} m on all")
+    if not (td_gap < 0.05 and float(gaps[clear].max()) < 5e-3):
+        raise AssertionError("localize_batch srp departs from the JAX "
+                             "answers")
+
+    # (5) batched GCC-PHAT at bench_gcc_phat's shape.
+    pi, pj = sw._pairs(4)
+    x = torch.randn((GCC_SCENES, 4, N), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    record("batched GCC-PHAT", lambda: gccphat.gcc_phat_all_pairs(
+        x, pi, pj, nfft=NFFT), ("gcc_all_pairs",), WINDOWED + ("delay_sum",))
+    ms = time_ms(lambda: gccphat.gcc_phat_all_pairs(x, pi, pj, nfft=NFFT), 5)
+    log(f"batched GCC-PHAT {GCC_SCENES} x 4 x {N} -> nfft {NFFT}: "
+        f"{ms:.3f} ms, {GCC_SCENES * len(pi) / ms * 1e3:.0f} pairs/s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -873,6 +1105,7 @@ def main() -> int:
     slice_golden = json.loads(SLICE_GOLDEN.read_text())
     sweep_golden = json.loads(SWEEP_GOLDEN.read_text())
     options_golden = json.loads(OPTIONS_GOLDEN.read_text())
+    srp_golden = json.loads(SRP_GOLDEN.read_text())
 
     # Phase 1: device.
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -893,11 +1126,13 @@ def main() -> int:
     # Phase 3: kernels against their plain versions.
     results = kernel_phase(cf, torch)
 
-    # Phases 4, 4b and 5: the main paths, each with its own launch counts.
+    # Phases 4, 4b, 5 and 6: the main paths, each with its own launch
+    # counts.
     launches = {name: 0 for name in KERNELS}
     main_path_phase(cf, torch, slice_golden, sweep_golden, launches)
     options_phase(cf, torch, slice_golden, options_golden, launches)
     sweep_phase(cf, torch, sweep_golden, launches)
+    srp_phase(cf, torch, srp_golden, launches)
     log(f"launches over the main paths: {launches}")
     missing = [k for k in KERNELS if launches.get(k, 0) == 0]
     if missing:

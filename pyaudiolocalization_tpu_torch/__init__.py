@@ -6,9 +6,11 @@ function names; it imports torch and numpy and never jax.  Ported so far:
 the physical-mode localization path (``lag_mode='physical'``,
 ``sync_mode='none'``) with its options (front ends, weightings, ladders,
 bootstrap nulls, clustering, robust LM, the DE fallback, calibration
-delays), its windowed fast path, and the batched Monte-Carlo sweep
-(``parallel/``), over nine hand-written CUDA kernels (ops/cuda_fft.py).
-Every other mode raises ``NotImplementedError``.
+delays) and the SRP-PHAT solvers ('srp', 'srp+lm'), its windowed fast
+path, and the batched Monte-Carlo sweep (``parallel/``: the 'lm', 'srp'
+and 'srp+lm' solvers, multi-source scenes), over nine hand-written CUDA
+kernels (ops/cuda_fft.py).  Every other mode raises
+``NotImplementedError``.
 """
 
 from .api import localize_sound_source  # noqa: F401

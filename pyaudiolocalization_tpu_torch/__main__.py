@@ -56,9 +56,9 @@ def main(argv=None) -> int:
         raise SystemExit(
             "this port runs only the physical-mode path without calibration "
             "or plots so far: pass --physical --no-calibration --no-plots")
-    if args.solver not in (None, "lm", "lm-robust"):
-        raise SystemExit(f"--solver {args.solver} is not ported yet; only "
-                         "'lm' and 'lm-robust' run")
+    if args.solver in ("beam", "music", "capon"):
+        raise SystemExit(f"--solver {args.solver} is not ported yet; 'lm', "
+                         "'lm-robust', 'srp' and 'srp+lm' run")
     device = _device(args.device)
 
     logging.basicConfig(level=logging.INFO,

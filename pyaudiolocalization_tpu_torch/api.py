@@ -8,16 +8,19 @@ or not), SCOT, Roth and CC weightings; the 'gaussian', 'median' and
 one; the permutation, block, circular and noise bootstrap nulls
 (``analyze_correlation``); k-means or DBSCAN initial guesses; the
 multi-start LM, plain or robust ('lm-robust'), with the differential-
-evolution fallback; calibration delays behind their SNR gate; and the
-Gauss-Markov uncertainty.  Parity mode, the pre-sync, the grid and
-narrowband solvers, audio files and plots raise ``NotImplementedError``.
+evolution fallback; the SRP-PHAT grid solvers 'srp' and 'srp+lm'
+(models/srp.py); calibration delays behind their SNR gate; and the
+Gauss-Markov uncertainty.  Parity mode, the pre-sync,
+the narrowband solvers ('beam', 'music', 'capon'), audio files and plots
+raise ``NotImplementedError``.
 
 Two estimation cores, dispatched as the JAX package dispatches them
 (api.py:717-728 there): the windowed fast core (``_estimation_core_fast``:
 no Butterworth pass, since PHAT cancels |H|^2 and the band mask zeroes the
 rest; kernel K2's lag window and statistics; the collapsed single-peak
 ladder) whenever ``_fast_path_eligible`` holds, else the full core (filter,
-K1's full correlations, the full ladder, the bootstrap).  Eligibility
+K1's full correlations, the full ladder, the bootstrap, then the LM or the
+SRP search).  Eligibility
 depends on the config, the dtype (the kernels take float32) and the
 shapes, never on the device, so the CPU runs the path the card runs.
 
@@ -37,6 +40,7 @@ import torch
 
 from .models import acoustics
 from .models import solver as solver_ops
+from .models import srp as srp_ops
 from .models import tdoa as tdoa_ops
 from .models import uncertainty as uncertainty_ops
 from .models.simulator import simulate_signals_fast
@@ -80,7 +84,7 @@ def _check_supported(loc: LocalizationConfig, use_simulation: bool,
          f"lag_mode={loc.lag_mode!r}: reference-parity mode {_LATER}"),
         (loc.sync_mode != "none",
          f"sync_mode={loc.sync_mode!r}: the reference pre-sync {_LATER}"),
-        (loc.solver not in ("lm", "lm-robust"),
+        (loc.solver in ("beam", "music", "capon"),
          f"solver={loc.solver!r} {_LATER}"),
         (not use_simulation and signals is None,
          f"use_simulation=False (audio files) {_LATER}"),
@@ -149,30 +153,64 @@ def _resolve_phat_band(loc: LocalizationConfig):
     return tuple(band) if band is not None else None
 
 
-def _physical_nfft(n: int, fs: float,
-                   max_expected_delay: Optional[float]) -> int:
+def _physical_nfft(n: int, fs: float, max_expected_delay: Optional[float],
+                   srp_lags: int = 0) -> int:
     """Circular next_pow2(n) transform when the consulted lag window (the
-    max_expected_delay gate plus the ladder's dilation) is alias-free,
-    else — and always for max_expected_delay=None, whose ladder consults
-    every lag — the alias-free next_pow2(2n-1) (api.py:697-713 of the JAX
-    package)."""
+    max_expected_delay gate plus the ladder's dilation, and for the SRP
+    solvers ``srp_lags``: the mic-diameter lag bound plus the max-pool
+    width and margin) is alias-free, else — and always for
+    max_expected_delay=None, whose ladder consults every lag — the
+    alias-free next_pow2(2n-1) (api.py:697-713 of the JAX package)."""
     if max_expected_delay is None:
         return fft_length(n, n, "pow2")
     nfft = fft_length(n, n, "circular")
     dilation = 8 * max(int(fs * 0.001), 1)
     needed = int(np.ceil(max_expected_delay * fs)) + dilation + 1
-    if nfft - n < needed:
+    if nfft - n < max(needed, srp_lags):
         nfft = fft_length(n, n, "pow2")
     return nfft
+
+
+def _resolve_search_box(scene: SceneConfig, loc: LocalizationConfig):
+    """Host-side grid-search box: the configured ``search_box`` verbatim,
+    else the mic array's bounding box expanded by max(array diameter,
+    0.5 m) per side (api.py:483-499 of the JAX package)."""
+    if loc.search_box is not None:
+        lo = np.asarray(loc.search_box[0], float)
+        hi = np.asarray(loc.search_box[1], float)
+        if lo.shape != (3,) or hi.shape != (3,) or np.any(hi <= lo):
+            raise ValueError("search_box must be ((x0,y0,z0),(x1,y1,z1)) "
+                             "with hi > lo per axis")
+        return lo, hi
+    mics = np.asarray(scene.mic_positions, float)
+    lo, hi = mics.min(0), mics.max(0)
+    margin = max(float(np.linalg.norm(hi - lo)), 0.5)
+    return lo - margin, hi + margin
+
+
+def _srp_grid_knobs(scene: SceneConfig, loc: LocalizationConfig, fs: float,
+                    c: float):
+    """(box lo, box hi, max-pool half-width, mic-diameter lag bound) of the
+    SRP search, host-side (api.py:467-480 of the JAX package): the pool is
+    a coarse cell's covering radius (0.866 of its widest edge) in samples
+    of travel time.  One definition for the nfft rule and the search."""
+    blo, bhi = _resolve_search_box(scene, loc)
+    cell = float(np.max(bhi - blo)) / srp_ops.COARSE_N
+    pool = max(1, int(np.ceil(0.866 * cell * fs / c)))
+    mics = np.asarray(scene.mic_positions, float)
+    diam = float(np.max(np.linalg.norm(mics[:, None, :] - mics[None, :, :],
+                                       axis=-1)))
+    return blo, bhi, pool, int(np.ceil(diam * fs / c))
 
 
 def _estimation_core(signals: torch.Tensor, mic_positions: torch.Tensor,
                      c: float, generator: Optional[torch.Generator],
                      calib: Optional[torch.Tensor], *, fs: float, pairs_i,
-                     pairs_j, nfft: int,
-                     loc: LocalizationConfig) -> Dict[str, torch.Tensor]:
+                     pairs_j, nfft: int, loc: LocalizationConfig,
+                     srp_knobs=None) -> Dict[str, torch.Tensor]:
     """Filter -> all-pairs GCC -> TDOA ladder -> (metrics) -> clustered
-    multi-start LM (plain or robust)."""
+    multi-start LM (plain or robust), or for 'srp' / 'srp+lm' the SRP
+    search with ``srp_knobs`` (``_srp_grid_knobs``)."""
     n = signals.shape[-1]
     num_mics = mic_positions.shape[0]
     pi = torch.as_tensor(pairs_i, dtype=torch.long, device=signals.device)
@@ -215,9 +253,30 @@ def _estimation_core(signals: torch.Tensor, mic_positions: torch.Tensor,
         weights = torch.ones(len(pairs_i), dtype=signals.dtype,
                              device=signals.device)
 
-    out.update(_solve(mic_positions, c, generator, pairs_i, pairs_j, td,
-                      weights, loc))
+    if loc.solver in ("srp", "srp+lm"):
+        out.update(_solve_srp(corr, mic_positions, c, pairs_i, pairs_j, td,
+                              weights, fs, loc.solver, *srp_knobs))
+    else:
+        out.update(_solve(mic_positions, c, generator, pairs_i, pairs_j, td,
+                          weights, loc))
     return out
+
+
+def _solve_srp(corr, mic_positions, c, pairs_i, pairs_j, td, weights,
+               fs: float, solver: str, blo, bhi, pool: int,
+               max_lag: int) -> Dict[str, torch.Tensor]:
+    """Two-stage SRP-PHAT over the box, and for 'srp+lm' the LM polish
+    kept within one coarse cell (api.py:232-249 of the JAX package).  The
+    cost is the negated SRP power unless the polish is kept."""
+    srp = srp_ops.srp_phat_locate(
+        corr, mic_positions, pairs_i, pairs_j, fs, c, blo, bhi,
+        pool_samples=pool, max_lag_samples=max_lag)
+    if solver == "srp":
+        return dict(estimated_position=srp.position, cost=-srp.power)
+    cell = float(np.linalg.norm((bhi - blo) / srp_ops.COARSE_N))
+    x, cost = srp_ops.lm_polish(srp, mic_positions, pairs_i, pairs_j, td, c,
+                                weights, cell)
+    return dict(estimated_position=x, cost=cost)
 
 
 def _fast_path_eligible(loc: LocalizationConfig, nfft: int, dtype,
@@ -384,7 +443,13 @@ def localize_sound_source(config,
     pairs_i = tuple(p[0] for p in pairs)
     pairs_j = tuple(p[1] for p in pairs)
     n = sigs.shape[-1]
-    nfft = _physical_nfft(n, fs, loc.max_expected_delay)
+    srp_knobs, srp_lags = None, 0
+    if loc.solver in ("srp", "srp+lm"):
+        srp_knobs = _srp_grid_knobs(scene, loc, fs, c)
+        _, _, pool, max_lag = srp_knobs
+        # SRP reads lags up to the diameter bound plus the pool width.
+        srp_lags = max_lag + pool + 3
+    nfft = _physical_nfft(n, fs, loc.max_expected_delay, srp_lags)
     mics_t = torch.as_tensor(mic_positions, dtype=dt, device=dev)
     calib = _calibration_delays(calibration_data, num_mics, loc.lag_mode)
     calib_t = (None if calib is None
@@ -398,7 +463,7 @@ def localize_sound_source(config,
     else:
         core = _estimation_core(sigs, mics_t, c, generator, calib_t, fs=fs,
                                 pairs_i=pairs_i, pairs_j=pairs_j, nfft=nfft,
-                                loc=loc)
+                                loc=loc, srp_knobs=srp_knobs)
 
     estimated = core["estimated_position"].double().cpu().numpy()
     cost = float(core["cost"])
@@ -406,7 +471,10 @@ def localize_sound_source(config,
     for (i, j), td in zip(pairs, td_np):
         logger.info("Time difference for mic pair %d-%d: %.6f s", i + 1,
                     j + 1, td)
-    fallback_used = not np.isfinite(cost)
+    # The DE fallback serves the LM solvers only: the SRP cost is a finite
+    # steered power by construction (api.py:774-778 of the JAX package).
+    fallback_used = (not np.isfinite(cost)
+                     and loc.solver in ("lm", "lm-robust"))
     if fallback_used:
         estimated = _de_fallback(core, mics_t, c, generator, pairs_i,
                                  pairs_j)
@@ -420,9 +488,13 @@ def localize_sound_source(config,
     uncertainty = uncertainty_ops.position_uncertainty(
         estimated, mic_positions, pairs_i, pairs_j, td_np, c, weights=w_np)
     if uncertainty is not None:
-        # Gauss-Markov assumes a stationary point of the LM cost; the
-        # fallback's fix is only approximately one.
-        uncertainty["heuristic"] = fallback_used
+        # Gauss-Markov assumes a stationary point of the TDOA least-squares
+        # cost.  Pure-grid SRP cells, an srp+lm whose polish was rejected
+        # (the cost stayed the negated SRP power) and the fallback's fix
+        # are not; their sigma is an approximation.
+        uncertainty["heuristic"] = bool(
+            loc.solver == "srp" or (loc.solver == "srp+lm" and cost < 0.0)
+            or fallback_used)
         logger.info("Position 1-sigma (x,y,z): (%.4f, %.4f, %.4f) m",
                     *uncertainty["std"])
 

@@ -210,15 +210,21 @@ __global__ void gcc_cross(const float2* __restrict__ spec,
   }
 }
 
-// Packed inverse rows -> (num_pairs, n) correlations scaled by 1/n.
+// Packed inverse rows -> (scenes, num_pairs, n) correlations scaled by 1/n.
+// Packed row blockIdx.y = scene * couples + c holds pairs 2c and 2c+1 of
+// that scene; with an odd num_pairs the second slot of each scene's last
+// couple is empty and nothing is written for it.
 __global__ void split_pairs(const float2* __restrict__ z, int num_pairs,
-                            int n, float scale, float* __restrict__ out) {
-  const int c = blockIdx.y;
+                            int couples, int n, float scale,
+                            float* __restrict__ out) {
+  const int row_c = blockIdx.y;
+  const int scene = row_c / couples;
+  const int c = row_c - scene * couples;
   const int p0 = 2 * c;
   const int p1 = 2 * c + 1;
-  const float2* row = z + (size_t)c * (size_t)n;
-  float* o0 = out + (size_t)p0 * (size_t)n;
-  float* o1 = out + (size_t)p1 * (size_t)n;
+  const float2* row = z + (size_t)row_c * (size_t)n;
+  float* o0 = out + ((size_t)scene * num_pairs + p0) * (size_t)n;
+  float* o1 = o0 + n;
   for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < n;
        t += gridDim.x * blockDim.x) {
     const float2 v = row[t];
@@ -630,27 +636,31 @@ int palt_fft_real(const float* x, int rows, int len, int n, const float2* tw,
   return 0;
 }
 
-// K1: x (mics, len) -> out (num_pairs, n) PHAT correlations, circular.
-int palt_gcc_all_pairs(const float* x, int mics, int len, int n,
+// K1: x (scenes, mics, len) -> out (scenes, num_pairs, n) PHAT
+// correlations, circular.  Rows scene * mics + mic are packed two to a
+// transform across scenes (an odd mic count still packs), as in K2.
+int palt_gcc_all_pairs(const float* x, int scenes, int mics, int len, int n,
                        const int* pairs_i, const int* pairs_j, int num_pairs,
                        const float* band, float eps, const float2* tw,
                        float2* spec0, float2* spec1, float2* z0, float2* z1,
                        float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int packed = (mics + 1) / 2;
+  const int rows = scenes * mics;
+  const int packed = (rows + 1) / 2;
   const int couples = (num_pairs + 1) / 2;
+  const int cross = scenes * couples;
   pack_rows<<<dim3(palt::pass_blocks(n), packed), kThreads, 0, s>>>(
-      x, mics, len, len, n, spec0);
+      x, rows, len, len, n, spec0);
   PALT_CHECK();
   float2* spec = fft_rows(spec0, spec1, tw, n, packed, 0, log2_int(n), s);
   PALT_CHECK();
-  gcc_cross<<<dim3(bin_blocks(n), couples), kThreads, 0, s>>>(
+  gcc_cross<<<dim3(bin_blocks(n), cross), kThreads, 0, s>>>(
       spec, pairs_i, pairs_j, num_pairs, mics, couples, band, eps, n, z0);
   PALT_CHECK();
-  float2* corr = fft_rows(z0, z1, tw, n, couples, 1, log2_int(n), s);
+  float2* corr = fft_rows(z0, z1, tw, n, cross, 1, log2_int(n), s);
   PALT_CHECK();
-  split_pairs<<<dim3(palt::pass_blocks(n), couples), kThreads, 0, s>>>(
-      corr, num_pairs, n, 1.0f / (float)n, out);
+  split_pairs<<<dim3(palt::pass_blocks(n), cross), kThreads, 0, s>>>(
+      corr, num_pairs, couples, n, 1.0f / (float)n, out);
   PALT_CHECK();
   return 0;
 }
@@ -734,7 +744,7 @@ int palt_whitened_corr(const float2* a, const float2* b, int rows, int n,
   float2* corr = fft_rows(z0, z1, tw, n, couples, 1, log2_int(n), s);
   PALT_CHECK();
   split_pairs<<<dim3(palt::pass_blocks(n), couples), kThreads, 0, s>>>(
-      corr, rows, n, 1.0f / (float)n, out);
+      corr, rows, couples, n, 1.0f / (float)n, out);
   PALT_CHECK();
   return 0;
 }

@@ -28,8 +28,10 @@ synthesis runs in one pass over the spectra, two real results share each
 inverse, and the bootstrap's maxima and the windowed GCC's lag window and
 statistics are taken inside the last inverse pass instead of writing the
 correlation.  The TPU kernels' bit-reversed (N2, 128) plane layout is not
-carried over: spectra are in natural order.  The render, windowed-GCC and
-scene kernels take a leading scene axis; every launch covers all scenes.
+carried over: spectra are in natural order.  The all-pairs GCC, render,
+windowed-GCC and scene kernels take a leading scene axis; every launch
+covers all scenes (the all-pairs GCC splits a batch beyond its grid limit
+into scene chunks).
 Measurement noise and the noise-null bootstrap's rows come from a
 counter-based Philox generator (``csrc/philox.cuh``, twin
 ``ops/noise.py``) in place of the TPU core's random bits.
@@ -138,8 +140,8 @@ def _library() -> ctypes.CDLL:
             "palt_noise_bootstrap_peaks": [p, p, i, i, i, f, p, p, p, p, p],
             "palt_whiten": [p, ctypes.c_longlong, f, p, p],
             "palt_whitened_corr": [p, p, i, i, p, f, p, p, p, p, p],
-            "palt_gcc_all_pairs": [p, i, i, i, p, p, i, p, f, p, p, p, p, p,
-                                   p, p],
+            "palt_gcc_all_pairs": [p, i, i, i, i, p, p, i, p, f, p, p, p, p,
+                                   p, p, p],
             "palt_bootstrap_peaks": [p, p, i, i, i, f, p, p, p, p, p],
             "palt_gcc_windowed": [p, i, i, i, i, p, p, i, p, f, i, p, p, p,
                                   p, p, p, p, p],
@@ -339,47 +341,70 @@ def gcc_all_pairs_plain(signals: torch.Tensor, pairs_i: Sequence[int],
     return torch.fft.irfft(white, n=nfft)
 
 
+def scene_chunk(scenes: int, mics: int, couples: int) -> int:
+    """Scenes per K1 launch: every grid's y extent (the packed mic rows,
+    (chunk * mics + 1) / 2, and the pair couples, chunk * couples) stays
+    within 65,535."""
+    return min(scenes, _MAX_GRID_Y // couples, 2 * _MAX_GRID_Y // mics)
+
+
 def gcc_all_pairs(signals: torch.Tensor, pairs_i: Sequence[int],
                   pairs_j: Sequence[int], nfft: int, mask: torch.Tensor,
                   eps: float = PHAT_EPS) -> torch.Tensor:
-    """(M, len <= nfft) signals -> (P, nfft) circular PHAT correlations,
-    band-masked by ``mask`` (``band_mask``) after whitening.
+    """(..., M, len <= nfft) signals -> (..., P, nfft) circular PHAT
+    correlations, band-masked by ``mask`` (``band_mask``) after whitening;
+    any leading (scene) axes.
 
     Replaces ``bfly_gcc_all_pairs`` (pyaudiolocalization_tpu/ops/
-    pallas_fft.py:922): M forward transforms (two mics per complex FFT),
-    one fused cross-spectrum / whitening / band pass writing two pairs per
-    packed row, the packed inverse, and a scale-and-split epilogue.  Bound
-    by the FFT passes' device-memory traffic."""
+    pallas_fft.py:922): the forward transforms of every mic row of every
+    scene (rows scene * M + mic, two per complex FFT, so an odd M packs
+    across scenes), one fused cross-spectrum / whitening / band pass
+    writing two pairs of one scene per packed row, the packed inverse, and
+    a scale-and-split epilogue.  A batch whose grids would exceed 65,535
+    rows launches over scene chunks (``scene_chunk``).  Bound by the FFT
+    passes' device-memory traffic."""
     if _use_plain(signals, mask):
         return gcc_all_pairs_plain(signals, pairs_i, pairs_j, nfft, mask, eps)
     _check_contiguous("gcc_all_pairs", signals, mask)
     _check_f32("gcc_all_pairs", signals, mask)
     _check_pow2(nfft)
-    mics, length = signals.shape
-    pi = np.asarray(pairs_i, np.int64)
-    pj = np.asarray(pairs_j, np.int64)
+    if signals.dim() < 2:
+        raise ValueError("gcc_all_pairs: signals must be (..., M, len)")
+    lead = signals.shape[:-2]
+    mics, length = signals.shape[-2:]
+    pi, pj = _check_pairs("gcc_all_pairs", pairs_i, pairs_j, mics)
+    scenes = int(np.prod(lead)) if lead else 1
     num_pairs = int(pi.shape[0])
-    if (length > nfft or num_pairs == 0 or pj.shape != pi.shape
-            or mask.shape != (nfft // 2 + 1,)
-            or min(pi.min(), pj.min()) < 0 or max(pi.max(), pj.max()) >= mics
-            or (mics + 1) // 2 > _MAX_GRID_Y):
-        raise ValueError("gcc_all_pairs: unsupported shapes or pair indices")
-    lib = _library()
+    couples = (num_pairs + 1) // 2
+    chunk = scene_chunk(scenes, mics, couples)
+    if length > nfft or mask.shape != (nfft // 2 + 1,):
+        raise ValueError("gcc_all_pairs: unsupported shapes")
     dev = signals.device
+    out = torch.empty(lead + (num_pairs, nfft), dtype=torch.float32,
+                      device=dev)
+    if scenes == 0:
+        return out
+    if chunk < 1:
+        raise ValueError("gcc_all_pairs: one scene exceeds the kernel's "
+                         "grid limit")
+    lib = _library()
     pi_t = torch.as_tensor(pi, dtype=torch.int32, device=dev)
     pj_t = torch.as_tensor(pj, dtype=torch.int32, device=dev)
-    out = torch.empty((num_pairs, nfft), dtype=torch.float32, device=dev)
-    spec = [_scratch((mics + 1) // 2, nfft, dev) for _ in range(2)]
-    cpl = [_scratch((num_pairs + 1) // 2, nfft, dev) for _ in range(2)]
+    x = signals.view(scenes, mics, length)
+    o = out.view(scenes, num_pairs, nfft)
+    spec = [_scratch((chunk * mics + 1) // 2, nfft, dev) for _ in range(2)]
+    cpl = [_scratch(chunk * couples, nfft, dev) for _ in range(2)]
     tw = _twiddles(nfft, str(dev))
     with torch.cuda.device(dev):
-        LAUNCHES["gcc_all_pairs"] += 1
-        err = lib.palt_gcc_all_pairs(
-            signals.data_ptr(), mics, length, nfft, pi_t.data_ptr(),
-            pj_t.data_ptr(), num_pairs, mask.data_ptr(), eps, tw.data_ptr(),
-            spec[0].data_ptr(), spec[1].data_ptr(), cpl[0].data_ptr(),
-            cpl[1].data_ptr(), out.data_ptr(), _stream(dev))
-    _raise_on("gcc_all_pairs", err)
+        for s0 in range(0, scenes, chunk):
+            LAUNCHES["gcc_all_pairs"] += 1
+            err = lib.palt_gcc_all_pairs(
+                x[s0].data_ptr(), min(chunk, scenes - s0), mics, length,
+                nfft, pi_t.data_ptr(), pj_t.data_ptr(), num_pairs,
+                mask.data_ptr(), eps, tw.data_ptr(), spec[0].data_ptr(),
+                spec[1].data_ptr(), cpl[0].data_ptr(), cpl[1].data_ptr(),
+                o[s0].data_ptr(), _stream(dev))
+            _raise_on("gcc_all_pairs", err)
     return out
 
 

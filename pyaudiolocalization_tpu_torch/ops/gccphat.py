@@ -13,9 +13,8 @@ in the JAX package:
   taken for the other weightings, for ``use_pallas='never'`` and for the
   lengths K1 cannot take.
 
-K1 has no scene axis yet: PHAT on signals with leading axes at a length K1
-takes raises ``NotImplementedError`` for a CUDA tensor, and takes the
-unfused branch (plain arithmetic) on the CPU.  ``phat_correlation`` (one
+K1 takes any leading (scene) axes, so the sweep's full-correlation branch
+runs it over every scene in one launch.  ``phat_correlation`` (one
 pair) at a power-of-two length no shorter than both signals runs K4a (both
 spectra in one launch) and K9 (``cuda_fft.whitened_corr``); at any other
 length it takes the unfused route.  On the CPU the kernels' plain twins
@@ -110,9 +109,9 @@ def gcc_phat_all_pairs(signals: torch.Tensor,
     """GCC for every pair: signals (..., M, N) -> (..., P, nfft), circular
     order, PHAT-weighted by default.  ``band=(lo_hz, hi_hz)`` with ``fs``
     zeroes the weighted bins outside the band (band-limited PHAT,
-    SURVEY.md Q5).  K1 runs for PHAT on (M, N) signals at a power-of-two
-    nfft >= N unless ``use_pallas='never'``; the other weightings, 'never'
-    and the other lengths take the unfused branch."""
+    SURVEY.md Q5).  K1 runs for PHAT at a power-of-two nfft >= N unless
+    ``use_pallas='never'``; the other weightings, 'never' and the other
+    lengths take the unfused branch."""
     n_samp = signals.shape[-1]
     n = nfft if nfft is not None else fft_length(n_samp, n_samp, "exact")
     if band is not None and fs is None:
@@ -121,13 +120,8 @@ def gcc_phat_all_pairs(signals: torch.Tensor,
     mask = cuda_fft.band_mask(n, band, fs, dtype=real, device=signals.device)
     if (use_pallas != "never" and weighting == "phat" and n_samp <= n
             and _is_pow2(n)):
-        if signals.dim() == 2:
-            return cuda_fft.gcc_all_pairs(signals.contiguous(), pairs_i,
-                                          pairs_j, n, mask, eps)
-        if signals.is_cuda:
-            raise NotImplementedError(
-                "PHAT GCC over leading axes needs K1's scene axis, which is "
-                "not ported yet (a later slice brings it)")
+        return cuda_fft.gcc_all_pairs(signals.contiguous(), pairs_i, pairs_j,
+                                      n, mask, eps)
     pi = torch.as_tensor(list(pairs_i), dtype=torch.long,
                          device=signals.device)
     pj = torch.as_tensor(list(pairs_j), dtype=torch.long,

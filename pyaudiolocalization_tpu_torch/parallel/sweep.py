@@ -7,31 +7,47 @@ dimension written out through every stage: one kernel launch renders and
 correlates every scene, the solver iterates every start of every scene in
 lock-step.
 
-Ported: single-source scenes with the 'lm' solver, PHAT weighting, the
-'gaussian' threshold and an LTI front end ('butterworth' / 'fir', which
-the band mask replaces), through two paths with the same draws and the
-same answer:
+Ported: the 'lm', 'srp' and 'srp+lm' solvers; PHAT, SCOT, Roth and CC
+weightings; the 'gaussian', 'median' and 'adaptive' thresholds; an LTI
+front end ('butterworth' / 'fir', which the band mask replaces); and
+multi-source scenes (``num_sources`` 2-6, 'srp' with 'spatial' or
+'claim' suppression).  Three estimation paths, chosen as the JAX package
+chooses them (``_mono_scene_eligible``, ``_use_windowed``):
 
 * fused (``_sim_est_fused``, kernel K5 ``scene_windowed``): render,
-  finalize, noise and the windowed GCC in one host entry;
-* split (``_simulate`` + ``_estimate``): K3 ``delay_sum`` with noise, then
-  K2 ``gcc_windowed``.
+  finalize, noise and the windowed GCC in one host entry, for single-
+  source 'lm' scenes with PHAT and the 'gaussian' threshold whose render
+  transform is the correlation's;
+* split windowed (``_simulate`` + ``_estimate``): K3 ``delay_sum`` with
+  noise, then K2 ``gcc_windowed`` and the windowed ladder, for the other
+  such scenes (a lag gate wider than K2's window is capped at nfft/2, as
+  in the JAX package);
+* full correlation (``_simulate`` + ``_estimate``): K3, then K1
+  ``gcc_all_pairs`` over every scene (the unfused GCC for the other
+  weightings), the full TDOA ladder, and the LM tail or the SRP search;
+  multi-source scenes render each source raw through K3, sum, finalize
+  and add noise, then run K1 and the multi-source SRP search.
 
 Every random draw of a sweep comes from one ``torch.Generator`` in a fixed
-order (sources, mic jitter, SNR, base signals, noise seeds, then the
-solver's k-means++ seeds), so the same seed on the same device gives the
-same sweep; the measurement noise itself is a counter-based stream of the
-noise seeds (ops/noise.py), identical in K3, K5 and their twins.
+order: sources (for K > 1 sources, 16 candidates per source), mic jitter,
+SNR, base signals (one batch per source), noise seeds, then the solver's
+k-means++ seeds.  The same seed on the same device gives the same sweep;
+the measurement noise itself is a counter-based stream of the noise seeds
+(ops/noise.py), identical in K3, K5, their twins and the multi-source
+noise (``ops/noise.add_noise``).  The JAX package's ``jax.random`` draws
+cannot be reproduced; sweeps agree with it in distribution.
 
 Entry points run on ``cuda`` unless given ``device`` (``device="cpu"``
-runs the plain PyTorch twins).  The other solvers, multi-source scenes,
-other weightings and thresholds, the Wiener front end, checkpointing and
-the multi-card mesh raise ``NotImplementedError``.
+runs the plain PyTorch twins).  The 'lm-robust', 'de', 'beam', 'music'
+and 'capon' solvers, the Wiener front end, checkpointing and the
+multi-card mesh raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import itertools
 from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -39,10 +55,13 @@ import torch
 
 from ..models import acoustics
 from ..models import solver as solver_ops
+from ..models import srp as srp_ops
 from ..models import tdoa as tdoa_ops
 from ..models import uncertainty as uncertainty_ops
 from ..models.simulator import render_scene, scene_paths
 from ..ops import cuda_fft
+from ..ops import gccphat
+from ..ops import noise as noise_ops
 from ..ops import signal as sig_ops
 from ..ops.delay import fade_window
 from ..ops.fftutils import fft_length, next_pow2
@@ -66,7 +85,7 @@ class SweepSpec:
     """Static description of a randomized-scene distribution: a copy of
     the JAX package's ``SweepSpec`` (parallel/sweep.py:71-229 there), same
     fields, defaults and derived properties.  See that class for what each
-    knob means; this slice runs the single-source 'lm' subset."""
+    knob means; the module docstring lists the subset that runs."""
 
     fs: float = 44100.0
     duration: float = 1.0
@@ -160,11 +179,15 @@ class SweepSpec:
 
 
 class SceneResult(NamedTuple):
-    """Per-scene results, leading scene axis B."""
-    estimate: torch.Tensor    # (B, 3)
-    source: torch.Tensor      # (B, 3) ground truth
-    error: torch.Tensor       # (B,) Euclidean error in meters
-    cost: torch.Tensor        # (B,) final solver cost
+    """Per-scene results, leading scene axis B.  With ``num_sources`` K > 1
+    every field but ``tdoas`` / ``covariance`` gains a source axis K
+    before its trailing dims (estimates assignment-matched to the ground
+    truth, cost the negated fine-stage SRP power), and the covariance is
+    NaN."""
+    estimate: torch.Tensor    # (B, 3) / (B, K, 3)
+    source: torch.Tensor      # (B, 3) / (B, K, 3) ground truth
+    error: torch.Tensor       # (B,) / (B, K) Euclidean error in meters
+    cost: torch.Tensor        # (B,) / (B, K) final solver cost
     tdoas: torch.Tensor       # (B, P)
     covariance: torch.Tensor  # (B, 3, 3) position covariance (m^2)
 
@@ -180,6 +203,12 @@ class SweepSummary(NamedTuple):
 # Estimation back half (signals -> position), batched over scenes
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _permutations(k: int) -> np.ndarray:
+    """All K! assignment permutations (K is capped at 6)."""
+    return np.array(list(itertools.permutations(range(k))), np.int64)
+
+
 def _check_spec(spec: SweepSpec) -> None:
     """The JAX package's ValueErrors, then this slice's limits."""
     if spec.num_sources < 1:
@@ -190,34 +219,85 @@ def _check_spec(spec: SweepSpec) -> None:
             "'phat', 'scot', 'roth', 'cc'")
     if spec.suppression not in ("spatial", "claim"):
         raise ValueError("suppression must be 'spatial' or 'claim'")
+    if spec.num_sources > 1:
+        if spec.solver not in ("srp", "music", "capon"):
+            raise ValueError(
+                "multi-source sweeps (num_sources > 1) require solver='srp', "
+                "'music', or 'capon': per-pair TDOA solvers assume a single "
+                "dominant source")
+        if spec.num_sources > 6:
+            raise ValueError(
+                "num_sources > 6 not supported (K! assignment matching)")
+        if (spec.source_freqs is not None
+                and len(spec.source_freqs) != spec.num_sources):
+            raise ValueError("source_freqs must have num_sources entries")
+        if spec.signal_type == "sine" and spec.source_freqs is None:
+            raise ValueError(
+                "multi-source 'sine' scenes need distinct source_freqs: "
+                "same-frequency sines are fully coherent and cannot be "
+                "separated (SRP-PHAT or MUSIC)")
     unsupported = [
-        (spec.num_sources != 1, f"num_sources={spec.num_sources}"),
-        (spec.solver != "lm", f"solver={spec.solver!r}"),
-        (spec.gcc_weighting != "phat",
-         f"gcc_weighting={spec.gcc_weighting!r}"),
-        (spec.threshold_method != "gaussian",
-         f"threshold_method={spec.threshold_method!r}"),
+        (spec.solver not in ("lm", "srp", "srp+lm"),
+         f"solver={spec.solver!r}"),
         (spec.filter_method not in ("butterworth", "fir"),
          f"filter_method={spec.filter_method!r}"),
     ]
     for bad, what in unsupported:
         if bad:
             raise NotImplementedError(f"sweep {what} {_LATER}")
-    half = tdoa_ops.window_half(spec.fs, spec.max_tdoa)
-    if half > (spec.nfft // 256) * 128:
-        raise NotImplementedError(
-            f"sweep lag gate of {half} samples exceeds the windowed GCC's "
-            f"cap of nfft/2 = {spec.nfft // 2}; the full-correlation path "
-            f"(K1 with a scene axis) {_LATER}")
 
 
 def _tdoa_window_wq(spec: SweepSpec) -> int:
     return tdoa_ops.window_wq(spec.fs, spec.max_tdoa, spec.nfft)
 
 
+def _band(spec: SweepSpec) -> Tuple[float, float]:
+    """The whitening band that replaces the LTI front end: one filter on
+    both channels multiplies the cross-spectrum by |H|^2, which PHAT
+    cancels in-band, and the band mask zeroes the rest
+    (parallel/sweep.py:363-381 of the JAX package)."""
+    return (spec.lowcut, spec.highcut)
+
+
 def _band_mask(spec: SweepSpec, like: torch.Tensor) -> torch.Tensor:
-    return cuda_fft.band_mask(spec.nfft, (spec.lowcut, spec.highcut),
-                              spec.fs, dtype=like.dtype, device=like.device)
+    return cuda_fft.band_mask(spec.nfft, _band(spec), spec.fs,
+                              dtype=like.dtype, device=like.device)
+
+
+def _srp_box(spec: SweepSpec):
+    """SRP search box: the source prior expanded 20% per side."""
+    blo = np.asarray(spec.source_box_lo, float)
+    bhi = np.asarray(spec.source_box_hi, float)
+    margin = 0.2 * (bhi - blo) + 1e-3
+    return blo - margin, bhi + margin
+
+
+def _srp_args(spec: SweepSpec, like: torch.Tensor):
+    """(lower, upper, keyword arguments) of the sweep's SRP searches: the
+    box, its pool width and the lag gate as the max-lag bound."""
+    blo, bhi = _srp_box(spec)
+    pool = srp_ops._resolve_pool(None, blo, bhi, srp_ops.COARSE_N, spec.fs,
+                                 spec.speed_of_sound)
+    kw = dict(pool_samples=pool,
+              max_lag_samples=int(np.ceil(spec.max_tdoa * spec.fs)))
+    return (torch.as_tensor(blo, dtype=like.dtype, device=like.device),
+            torch.as_tensor(bhi, dtype=like.dtype, device=like.device), kw)
+
+
+def _windowed_tdoa_solvers(spec: SweepSpec) -> bool:
+    """Specs whose TDOA stage runs the windowed single-peak ladder; shared
+    by ``_use_windowed`` and ``_mono_scene_eligible`` (the JAX package's
+    ``_windowed_tdoa_solvers``)."""
+    return (spec.solver in ("lm", "lm-robust", "de")
+            and spec.threshold_method == "gaussian")
+
+
+def _use_windowed(spec: SweepSpec) -> bool:
+    """K2's lag window in place of full correlations: a windowed solver
+    with PHAT.  The JAX package adds the TPU kernel's VMEM rules, which do
+    not apply here; a gate wider than K2's window is capped at nfft/2 as
+    it is there (``_tdoa_window_wq``)."""
+    return _windowed_tdoa_solvers(spec) and spec.gcc_weighting == "phat"
 
 
 def _solve_from_td(spec: SweepSpec, mics, td, c, generator,
@@ -244,20 +324,81 @@ def _solve_from_window(spec: SweepSpec, win, stats, mics, c, generator,
     return x, cost, td
 
 
+def _correlate(spec: SweepSpec, signals: torch.Tensor) -> torch.Tensor:
+    """(B, M, N) -> (B, P, nfft) band-limited correlations of every scene:
+    K1 for PHAT, the unfused GCC for the other weightings."""
+    pi, pj = spec.pairs
+    return gccphat.gcc_phat_all_pairs(signals, pi, pj, nfft=spec.nfft,
+                                      band=_band(spec), fs=spec.fs,
+                                      weighting=spec.gcc_weighting)
+
+
+def _solve_srp(spec: SweepSpec, corr, mics, td, c):
+    """SRP over every scene's box, and for 'srp+lm' the LM polish kept
+    within one coarse cell.  Returns (x (B, 3), cost (B,))."""
+    pi, pj = spec.pairs
+    lower, upper, kw = _srp_args(spec, corr)
+    srp = srp_ops.srp_phat_locate(corr, mics, pi, pj, spec.fs, c, lower,
+                                  upper, **kw)
+    if spec.solver == "srp":
+        return srp.position, -srp.power
+    blo, bhi = _srp_box(spec)
+    cell = float(np.linalg.norm((bhi - blo) / srp_ops.COARSE_N))
+    return srp_ops.lm_polish(srp, mics, pi, pj, td, c, torch.ones_like(td),
+                             cell)
+
+
+def _estimate_multi(spec: SweepSpec, signals: torch.Tensor,
+                    mics: torch.Tensor, c):
+    """Multi-source estimation: K1 over every scene, then the multi-source
+    SRP search (suppression ``spec.suppression``).  Returns (positions
+    (B, K, 3) in coarse extraction order, negated fine-stage powers
+    (B, K), diagnostic argmax TDOAs (B, P): the circular peak index
+    decoded as a physical lag, dominated by the strongest source)."""
+    pi, pj = spec.pairs
+    corr = _correlate(spec, signals)
+    n = corr.shape[-1]
+    am = torch.argmax(corr, -1)
+    td = -torch.where(am >= n // 2, am - n, am).to(signals.dtype) / spec.fs
+    lower, upper, kw = _srp_args(spec, corr)
+    sep = (0.8 * spec.source_min_separation
+           if spec.source_min_separation > 0 else None)
+    out = srp_ops.srp_phat_locate_multi(
+        corr, mics, pi, pj, spec.fs, c, lower, upper,
+        num_sources=spec.num_sources, min_separation=sep,
+        suppression=spec.suppression, **kw)
+    return out.positions, -out.powers, td
+
+
 def _estimate(spec: SweepSpec, signals: torch.Tensor, mics: torch.Tensor,
               c, generator, seed_indices=None):
-    """K2 windowed GCC -> windowed TDOA ladder -> clustered init ->
-    bounded multi-start LM for signals (B, M, N), mics (B, M, 3).  Returns
-    (x (B, 3), cost (B,), td (B, P)).  The LTI bandpass front end is not
-    run: one filter on both channels multiplies the cross-spectrum by
-    |H|^2, which PHAT cancels in-band, and the band mask zeroes the rest
-    (parallel/sweep.py:363-381 of the JAX package)."""
+    """Signals (B, M, N), mics (B, M, 3) -> (x (B, 3), cost (B,), td
+    (B, P)); (B, K, 3), (B, K), (B, P) for K > 1 sources.  The LTI
+    bandpass front end is not run: the band mask replaces it (``_band``).
+    Windowed specs (``_use_windowed``): K2 -> windowed ladder -> clustered
+    init -> bounded multi-start LM.  The others: correlations of every
+    scene -> the full ladder -> that LM tail or the SRP search."""
+    if spec.num_sources > 1:
+        return _estimate_multi(spec, signals, mics, c)
     pi, pj = spec.pairs
-    win, stats = cuda_fft.gcc_windowed(
-        signals.contiguous(), pi, pj, spec.nfft, _tdoa_window_wq(spec),
-        _band_mask(spec, signals))
-    return _solve_from_window(spec, win, stats, mics, c, generator,
-                              seed_indices)
+    if _use_windowed(spec):
+        win, stats = cuda_fft.gcc_windowed(
+            signals.contiguous(), pi, pj, spec.nfft, _tdoa_window_wq(spec),
+            _band_mask(spec, signals))
+        return _solve_from_window(spec, win, stats, mics, c, generator,
+                                  seed_indices)
+    corr = _correlate(spec, signals)
+    res = tdoa_ops.time_delays_from_corr(
+        corr, spec.num_samples, spec.num_samples, spec.fs, num_peaks=1,
+        threshold_method=spec.threshold_method,
+        max_expected_delay=spec.max_tdoa)
+    # physical peak lag -> td = arrival_j - arrival_i (models/tdoa.py).
+    td = -res.delays[..., 0]
+    if spec.solver in ("srp", "srp+lm"):
+        x, cost = _solve_srp(spec, corr, mics, td, c)
+    else:
+        x, cost = _solve_from_td(spec, mics, td, c, generator, seed_indices)
+    return x, cost, td
 
 
 def _generator(seed_or_generator, dev: torch.device) -> torch.Generator:
@@ -275,7 +416,9 @@ def localize_batch(spec: SweepSpec, signals, mics,
                    dtype: torch.dtype = torch.float32, device=None):
     """Estimation-only batch: signals (B, M, N), mic geometry (M, 3) shared
     or (B, M, 3) per scene.  Returns (estimates (B, 3), costs (B,), tdoas
-    (B, P))."""
+    (B, P)); with ``num_sources`` K > 1, estimates (B, K, 3) and costs
+    (B, K), the negated fine-stage SRP powers, in coarse extraction order
+    (no ground truth to match against here)."""
     _check_spec(spec)
     dev = resolve_device(device)
     generator = _generator(seed_or_generator, dev)
@@ -290,13 +433,40 @@ def localize_batch(spec: SweepSpec, signals, mics,
 # Full scene pipeline (randomize -> simulate -> estimate)
 # ---------------------------------------------------------------------------
 
-def _random_scene(spec: SweepSpec, generator, num_scenes: int, dtype, dev):
-    """(sources (B, 3) uniform in the box, mics (B, M, 3), snr_db (B,)),
-    drawn in that order."""
+def _draw_sources(spec: SweepSpec, generator, num_scenes: int, dtype, dev):
+    """(B, K, 3) sources uniform in the box.  K > 1 draws 16 candidates
+    per source and places the sources greedily: each takes its first
+    candidate at least ``source_min_separation`` from every source placed
+    before it, candidate 0 when none is (a soft constraint, as in the JAX
+    package)."""
     lo = torch.as_tensor(spec.source_box_lo, dtype=dtype, device=dev)
     hi = torch.as_tensor(spec.source_box_hi, dtype=dtype, device=dev)
-    sources = lo + (hi - lo) * torch.rand(
-        (num_scenes, 3), generator=generator, dtype=dtype, device=dev)
+    k = spec.num_sources
+    if k == 1:
+        return (lo + (hi - lo) * torch.rand(
+            (num_scenes, 3), generator=generator, dtype=dtype,
+            device=dev))[:, None, :]
+    cands = lo + (hi - lo) * torch.rand(
+        (num_scenes, k, 16, 3), generator=generator, dtype=dtype, device=dev)
+    if spec.source_min_separation <= 0:
+        return cands[:, :, 0]
+    rows = torch.arange(num_scenes, device=dev)
+    placed = []
+    for idx in range(k):
+        ck = cands[:, idx]                                        # (B, 16, 3)
+        ok = torch.ones(ck.shape[:2], dtype=torch.bool, device=dev)
+        for prev in placed:
+            ok &= torch.linalg.norm(ck - prev[:, None, :], dim=-1) \
+                >= spec.source_min_separation
+        pick = torch.argmax(ok.to(torch.uint8), -1)  # first valid, else 0
+        placed.append(ck[rows, pick])
+    return torch.stack(placed, 1)
+
+
+def _random_scene(spec: SweepSpec, generator, num_scenes: int, dtype, dev):
+    """(sources (B, K, 3), mics (B, M, 3), snr_db (B,)), drawn in that
+    order."""
+    sources = _draw_sources(spec, generator, num_scenes, dtype, dev)
     mics = torch.as_tensor(spec.mic_positions, dtype=dtype, device=dev)
     mics = mics.expand(num_scenes, *mics.shape)
     if spec.mic_jitter > 0:
@@ -308,19 +478,27 @@ def _random_scene(spec: SweepSpec, generator, num_scenes: int, dtype, dev):
     return sources, mics.contiguous(), snr_db
 
 
+def _source_freq(spec: SweepSpec, k: int) -> float:
+    return spec.source_freqs[k] if spec.source_freqs is not None else spec.freq
+
+
 def _draw_signals(spec: SweepSpec, generator, num_scenes: int, dtype, dev):
-    """(base (B, N), noise seeds (B, 2) int32), drawn in that order."""
-    base = sig_ops.generate_signal(spec.signal_type, spec.fs, spec.duration,
-                                   spec.freq, generator=generator,
-                                   dtype=dtype, device=dev, batch=num_scenes)
+    """(base (B, K, N), one batch per source at its frequency, then noise
+    seeds (B, 2) int32), drawn in that order."""
+    base = torch.stack([sig_ops.generate_signal(
+        spec.signal_type, spec.fs, spec.duration, _source_freq(spec, k),
+        generator=generator, dtype=dtype, device=dev, batch=num_scenes)
+        for k in range(spec.num_sources)], 1)
     seeds = torch.randint(-2 ** 31, 2 ** 31, (num_scenes, 2),
                           generator=generator, dtype=torch.int32, device=dev)
     return base, seeds
 
 
-def _source_paths(spec: SweepSpec, sources, mics, c):
-    """Delay/gain matrices (B, M, paths) for each scene's direct + image
-    paths."""
+def _source_paths(spec: SweepSpec, sources, mics, c,
+                  freq: Optional[float] = None):
+    """Delay/gain matrices (B, M, paths) of each scene's direct + image
+    paths for sources (B, 3) at ``freq`` (default ``spec.freq``)."""
+    freq = spec.freq if freq is None else freq
     dtype, dev = sources.dtype, sources.device
     absorption = torch.as_tensor(spec.material_absorption, dtype=dtype,
                                  device=dev)
@@ -330,19 +508,37 @@ def _source_paths(spec: SweepSpec, sources, mics, c):
     mat_ids = torch.as_tensor(np.asarray(spec.plane_material_ids,
                                          np.int64).reshape(-1), device=dev)
     images = acoustics.image_sources(sources, planes, mat_ids, mics,
-                                     spec.freq, absorption, freq_tab,
+                                     freq, absorption, freq_tab,
                                      spec.max_reflections,
                                      spec.absorption_threshold)
-    return scene_paths(sources, mics, c, spec.freq, images, absorption,
-                       freq_tab)
+    return scene_paths(sources, mics, c, freq, images, absorption, freq_tab)
 
 
-def _simulate(spec: SweepSpec, paths, base, snr_db, seeds) -> torch.Tensor:
-    """Split path's render: K3 with finalize and measurement noise ->
-    signals (B, M, N)."""
-    return render_scene(base, paths.delays, paths.gains, spec.fs,
-                        spec.total_samples, spec.num_samples, pad_mode="pow2",
-                        finalize=True, snr_db=snr_db, noise_seeds=seeds)
+def _simulate(spec: SweepSpec, sources, mics, c, base, snr_db,
+              seeds) -> torch.Tensor:
+    """Split path's render -> signals (B, M, N).  One source: K3 with
+    finalize and measurement noise.  K > 1: every source of every scene
+    rendered raw in one K3 launch (rows scene * K + source), summed,
+    normalized and compressed per mic, then the same noise stream added
+    at the scene's SNR (``ops/noise.add_noise``)."""
+    num_scenes, k = sources.shape[:2]
+    if k == 1:
+        paths = _source_paths(spec, sources[:, 0], mics, c)
+        return render_scene(base[:, 0], paths.delays, paths.gains, spec.fs,
+                            spec.total_samples, spec.num_samples,
+                            finalize=True, snr_db=snr_db, noise_seeds=seeds)
+    paths = [_source_paths(spec, sources[:, s], mics, c,
+                           _source_freq(spec, s)) for s in range(k)]
+    delays = torch.stack([p.delays for p in paths], 1)
+    gains = torch.stack([p.gains for p in paths], 1)
+    raw = render_scene(base.reshape(num_scenes * k, -1),
+                       delays.reshape((num_scenes * k,) + delays.shape[2:]),
+                       gains.reshape((num_scenes * k,) + gains.shape[2:]),
+                       spec.fs, spec.total_samples, spec.num_samples,
+                       finalize=False)
+    raw = raw.reshape((num_scenes, k) + raw.shape[1:]).sum(1)
+    sigs = sig_ops.dynamic_range_compression(sig_ops.normalize_signal(raw))
+    return noise_ops.add_noise(sigs, snr_db, seeds)
 
 
 def _sim_est_fused(spec: SweepSpec, paths, base, snr_db, seeds, mics, c,
@@ -350,7 +546,7 @@ def _sim_est_fused(spec: SweepSpec, paths, base, snr_db, seeds, mics, c,
     """Fused path: kernel K5 renders every scene (finalize and noise
     included) and returns the windowed correlations and statistics; the
     TDOA ladder and solver tail follow.  Same estimator, draws and noise
-    stream as ``_simulate`` + ``_estimate``."""
+    stream as ``_simulate`` + ``_estimate``.  base (B, N)."""
     pi, pj = spec.pairs
     dtype, dev = base.dtype, base.device
     padded = torch.zeros((base.shape[0], spec.total_samples), dtype=dtype,
@@ -367,12 +563,15 @@ def _sim_est_fused(spec: SweepSpec, paths, base, snr_db, seeds, mics, c,
 
 
 def _mono_scene_eligible(spec: SweepSpec) -> bool:
-    """Gate of the fused path.  ``_check_spec`` already holds the JAX
-    package's other semantic conditions (single source, windowed solver,
-    PHAT, LTI front end; parallel/sweep.py:728-738 there), and the TPU's
-    VMEM rule does not apply: what is left is that the render's transform
-    is the correlation's."""
-    return next_pow2(spec.total_samples) == spec.nfft
+    """Gate of the fused path: the JAX package's semantic conditions
+    (parallel/sweep.py:728-738 there) — one source, a windowed solver with
+    the 'gaussian' threshold, PHAT, an LTI front end, and a render
+    transform that is the correlation's.  The TPU's VMEM rule does not
+    apply."""
+    return (spec.num_sources == 1 and _windowed_tdoa_solvers(spec)
+            and spec.gcc_weighting == "phat"
+            and spec.filter_method in ("butterworth", "fir")
+            and next_pow2(spec.total_samples) == spec.nfft)
 
 
 def run_scene(spec: SweepSpec,
@@ -381,7 +580,7 @@ def run_scene(spec: SweepSpec,
               device=None) -> SceneResult:
     """``num_scenes`` randomized simulate -> localize pipelines, batched
     (the JAX package's ``run_scene`` vmapped over keys): the fused K5 path
-    where ``_mono_scene_eligible`` holds, else K3 then K2."""
+    where ``_mono_scene_eligible`` holds, else K3 then ``_estimate``."""
     _check_spec(spec)
     dev = resolve_device(device)
     return _run_scenes(spec, _generator(seed_or_generator, dev), num_scenes,
@@ -397,17 +596,31 @@ def _run_scenes(spec: SweepSpec, generator, num_scenes: int, dtype,
     sources, mics, snr_db = _random_scene(spec, generator, num_scenes, dtype,
                                           dev)
     base, seeds = _draw_signals(spec, generator, num_scenes, dtype, dev)
-    paths = _source_paths(spec, sources, mics, c)
     if fused:
-        estimate, cost, td = _sim_est_fused(spec, paths, base, snr_db, seeds,
-                                            mics, c, generator)
+        paths = _source_paths(spec, sources[:, 0], mics, c)
+        estimate, cost, td = _sim_est_fused(spec, paths, base[:, 0], snr_db,
+                                            seeds, mics, c, generator)
     else:
-        signals = _simulate(spec, paths, base, snr_db, seeds)
+        signals = _simulate(spec, sources, mics, c, base, snr_db, seeds)
         estimate, cost, td = _estimate(spec, signals, mics, c, generator)
-    error = torch.linalg.norm(estimate - sources, dim=-1)
-    pi, pj = spec.pairs
-    cov = uncertainty_ops.position_covariance(estimate, mics, pi, pj, td, c)
-    return SceneResult(estimate, sources, error, cost, td, cov)
+    if spec.num_sources == 1:
+        source = sources[:, 0]
+        error = torch.linalg.norm(estimate - source, dim=-1)
+        pi, pj = spec.pairs
+        cov = uncertainty_ops.position_covariance(estimate, mics, pi, pj, td,
+                                                  c)
+        return SceneResult(estimate, source, error, cost, td, cov)
+    # Match estimates to sources by the best (least mean error) of the K!
+    # assignments.
+    perms = torch.as_tensor(_permutations(spec.num_sources), device=dev)
+    d = torch.linalg.norm(estimate[:, perms] - sources[:, None], dim=-1)
+    best = torch.argmin(torch.mean(d, -1), -1)                        # (B,)
+    order = perms[best]                                               # (B, K)
+    rows = torch.arange(num_scenes, device=dev)[:, None]
+    cov = torch.full((num_scenes, 3, 3), float("nan"), dtype=dtype,
+                     device=dev)
+    return SceneResult(estimate[rows, order], sources, d[rows[:, 0], best],
+                       cost[rows, order], td, cov)
 
 
 def _summary(results: SceneResult, hit_threshold: float) -> SweepSummary:

@@ -243,18 +243,58 @@ def test_wrappers_validate_cuda_inputs(cuda):
 
 
 @pytest.mark.cuda
-def test_gcc_leading_axes_raise_on_the_card(cuda):
-    """PHAT at a length K1 takes, over a leading axis, needs K1's scene
-    axis: the card refuses it rather than run library FFTs; the other
-    weightings and use_pallas='never' take the unfused branch."""
-    x = torch.randn((2, 4, 1500), device=cuda)
+def test_gcc_leading_axes_run_k1_on_the_card(cuda):
+    """PHAT at a length K1 takes, over leading axes, launches K1 once over
+    every scene and equals the per-scene calls; the other weightings and
+    use_pallas='never' take the unfused branch."""
+    x = torch.randn((2, 3, 4, 1500), device=cuda)
     pi, pj = _pairs(4)
-    with pytest.raises(NotImplementedError, match="scene axis"):
-        gccphat.gcc_phat_all_pairs(x, pi, pj, nfft=2048)
+    before = cf.LAUNCHES["gcc_all_pairs"]
+    got = gccphat.gcc_phat_all_pairs(x, pi, pj, nfft=2048)
+    torch.cuda.synchronize()
+    assert cf.LAUNCHES["gcc_all_pairs"] == before + 1
+    assert got.shape == (2, 3, 6, 2048)
+    for a in range(2):
+        for b in range(3):
+            one = gccphat.gcc_phat_all_pairs(x[a, b], pi, pj, nfft=2048)
+            assert float((got[a, b] - one).abs().max()) < 1e-6
     for kw in (dict(weighting="scot"), dict(use_pallas="never")):
         got = gccphat.gcc_phat_all_pairs(x, pi, pj, nfft=2048, **kw)
         want = gccphat.gcc_phat_all_pairs(x.cpu(), pi, pj, nfft=2048, **kw)
         assert float((got.cpu() - want).abs().max()) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,length,nfft", [
+    (3, 3, 1500, 2048), (2, 5, 1000, 2048), (5, 2, 300, 512),
+    (64, 8, 4000, 4096)])
+def test_gcc_all_pairs_scene_axis_matches_plain(cuda, b, m, length, nfft):
+    """Odd mic and pair counts (pairs packed per scene, mics across
+    scenes), and 64 scenes of 8 mics (28 pairs)."""
+    sig = torch.randn((b, m, length), generator=_gen(cuda), device=cuda)
+    pi, pj = _pairs(m)
+    mask = cf.band_mask(nfft, (300.0, 3400.0), 16000.0, device=cuda)
+    got = cf.gcc_all_pairs(sig, pi, pj, nfft, mask)
+    want = cf.gcc_all_pairs_plain(sig, pi, pj, nfft, mask)
+    torch.cuda.synchronize()
+    assert got.shape == (b, len(pi), nfft)
+    assert float((got - want).abs().max()) < 1e-6
+
+
+@pytest.mark.cuda
+def test_gcc_all_pairs_launches_over_scene_chunks(cuda, monkeypatch):
+    """A batch beyond the grid limit is launched in scene chunks (the
+    limit lowered here so a small batch crosses it)."""
+    monkeypatch.setattr(cf, "_MAX_GRID_Y", 7)
+    sig = torch.randn((5, 3, 200), generator=_gen(cuda), device=cuda)
+    pi, pj = _pairs(3)
+    mask = cf.band_mask(256, None, None, device=cuda)
+    before = cf.LAUNCHES["gcc_all_pairs"]
+    got = cf.gcc_all_pairs(sig, pi, pj, 256, mask)
+    torch.cuda.synchronize()
+    assert cf.LAUNCHES["gcc_all_pairs"] - before == 2   # 3 + 2 scenes
+    want = cf.gcc_all_pairs_plain(sig, pi, pj, 256, mask)
+    assert float((got - want).abs().max()) < 1e-6
 
 
 def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
@@ -405,3 +445,27 @@ def test_sweep_on_the_card_matches_cpu_statistics(cuda):
     est, _, td = localize_batch(_SPEC, np.zeros((2, 4, 1600)),
                                 _SPEC.mic_positions, 0, device=cuda)
     assert est.shape == (2, 3) and td.shape == (2, 6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("change", [
+    dict(solver="srp"), dict(solver="srp+lm"),
+    dict(threshold_method="median", gcc_weighting="scot"),
+    dict(solver="srp", num_sources=2, source_min_separation=0.4,
+         mic_positions=((0.0, 0.0, 0.0), (1.0, 0.0, 0.0), (0.0, 1.0, 0.0),
+                        (0.0, 0.0, 1.0), (1.0, 1.0, 0.0), (1.0, 0.0, 1.0),
+                        (0.0, 1.0, 1.0), (1.0, 1.0, 1.0)))])
+def test_full_correlation_sweep_on_the_card(cuda, change):
+    """The full-correlation branch on the card: K3 then K1 over every
+    scene (the unfused GCC for SCOT), no windowed kernel; the statistics
+    agree with the CPU's."""
+    import dataclasses
+    spec = dataclasses.replace(_SPEC, **change)
+    cf.reset_launches()
+    card = monte_carlo_sweep(spec, 0, 16, device=cuda)
+    assert cf.LAUNCHES["delay_sum"] == 1
+    assert cf.LAUNCHES["gcc_all_pairs"] == (spec.gcc_weighting == "phat")
+    assert cf.LAUNCHES["gcc_windowed"] == cf.LAUNCHES["scene_windowed"] == 0
+    cpu = monte_carlo_sweep(spec, 0, 16, device="cpu")
+    for s in (card, cpu):
+        assert float(s.hit_rate) > 0.8

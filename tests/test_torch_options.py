@@ -147,21 +147,20 @@ def test_gcc_weightings_match_jax(weighting, nfft, band):
 
 
 def test_gcc_branches_agree_and_refuse(monkeypatch):
-    """PHAT through K1's twin equals the unfused branch; on the CPU, leading
-    axes (a CUDA tensor raises: K1 has no scene axis yet, see
-    test_torch_cuda_kernels) and odd lengths take the unfused branch;
-    unknown weightings raise."""
+    """PHAT through K1's twin equals the unfused branch; leading axes take
+    K1 too (its scene axis, see test_torch_srp); odd lengths take the
+    unfused branch; unknown weightings raise."""
     sig = torch.from_numpy(_scene())
     fused = tgcc.gcc_phat_all_pairs(sig, PI, PJ, nfft=4096, band=BAND, fs=FS)
     plain = tgcc.gcc_phat_all_pairs(sig, PI, PJ, nfft=4096, band=BAND, fs=FS,
                                     use_pallas="never")
     _close(fused, plain)
+    batched = tgcc.gcc_phat_all_pairs(sig[None], PI, PJ, nfft=4096,
+                                      band=BAND, fs=FS)
+    assert torch.equal(batched[0], fused)
     from pyaudiolocalization_tpu_torch.ops import cuda_fft
     monkeypatch.setattr(cuda_fft, "gcc_all_pairs",
                         lambda *a, **k: pytest.fail("K1 off its shapes"))
-    batched = tgcc.gcc_phat_all_pairs(sig[None], PI, PJ, nfft=4096,
-                                      band=BAND, fs=FS)
-    _close(batched[0], plain)
     tgcc.gcc_phat_all_pairs(sig, PI, PJ, nfft=3000)        # not a power of 2
     tgcc.gcc_phat_all_pairs(sig, PI, PJ, nfft=1024)        # shorter than N
     with pytest.raises(ValueError, match="weighting"):

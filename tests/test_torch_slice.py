@@ -83,11 +83,12 @@ def test_slice_defaults_to_cpu_and_is_seeded():
 
 @pytest.mark.parametrize("key,value", [
     ("lag_mode", "reference"), ("sync_mode", "reference"),
-    ("solver", "srp"), ("solver", "srp+lm"), ("solver", "beam"),
-    ("solver", "music"), ("solver", "capon")])
+    ("absorption_mode", "per-bin"), ("signal_type", "speech"),
+    ("solver", "beam"), ("solver", "music"), ("solver", "capon")])
 def test_modes_outside_the_slice_raise(key, value):
     cfg = _config()
-    cfg["localization"][key] = value
+    scene_keys = ("absorption_mode", "signal_type")
+    (cfg if key in scene_keys else cfg["localization"])[key] = value
     with pytest.raises(NotImplementedError):
         tpkg.localize_sound_source(cfg, device="cpu")
 
@@ -107,7 +108,7 @@ def test_api_refusals():
 @pytest.mark.parametrize("argv", [
     [], ["--physical"], ["--physical", "--no-calibration"],
     ["--no-calibration", "--no-plots"],
-    ["--physical", "--no-calibration", "--no-plots", "--solver", "srp"]])
+    ["--physical", "--no-calibration", "--no-plots", "--solver", "beam"]])
 def test_demo_requires_the_physical_path(argv):
     with pytest.raises(SystemExit, match="physical|not ported"):
         tmain.main(argv + ["--device", "cpu"])

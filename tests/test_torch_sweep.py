@@ -259,9 +259,10 @@ def test_sweep_multipath_scenes():
 
 
 @pytest.mark.parametrize("change", [
-    dict(solver="srp"), dict(solver="lm-robust"), dict(num_sources=2),
-    dict(gcc_weighting="scot"), dict(threshold_method="median"),
-    dict(filter_method="wiener"), dict(fs=44100.0, duration=0.01)])
+    dict(solver="de"), dict(solver="lm-robust"),
+    dict(num_sources=2, solver="music"), dict(solver="beam"),
+    dict(num_sources=2, solver="capon"), dict(filter_method="wiener"),
+    dict(solver="music")])
 def test_unsupported_specs_raise(change):
     with pytest.raises(NotImplementedError, match="later slice"):
         tsw.monte_carlo_sweep(tsw.SweepSpec(**dict(SPEC_ARGS, **change)), 0,

@@ -1,25 +1,50 @@
-"""Device time and idle share of one warm full-width Monte-Carlo sweep of
-the PyTorch port (``bench.py``'s ``bench_full_sweep`` spec: 4 mics,
-44.1 kHz x 1 s, noise, SNR 20-40 dB, 512 scenes) on the card, under
-``torch.profiler``.
+"""Device time and idle share of one warm Monte-Carlo sweep of the PyTorch
+port on the card, under ``torch.profiler``, at one of ``bench.py``'s
+specs:
 
-Prints the profiled wall time, the device time summed over kernels (the
-profiler's "Self CUDA time total"), the idle share, the number of device
-kernels, and the kernels that take the most device time.  Run from the
-repository root on a machine with a card:
+* ``full`` (default): ``bench_full_sweep``, 4 mics, 44.1 kHz x 1 s,
+  noise, SNR 20-40 dB, 512 scenes (the fused K5 path);
+* ``reverberant``: ``bench_reverberant_sweep``, six planes at order 2,
+  16 kHz x 0.25 s, ``solver='srp'``, 512 scenes (K3, K1, the SRP search);
+  ``reverberant_lm`` the same with ``solver='srp+lm'``;
+* ``multi_spatial`` / ``multi_claim``: ``bench_multi_source``, an 8-mic
+  cube, 2 sources, 128 scenes.
 
-    python tools/torch_sweep_profile.py
+The SRP specs are read from tests/data/torch_srp_golden.json.  Prints the
+profiled wall time, the device time summed over kernels (the profiler's
+"Self CUDA time total"), the idle share, the number of device kernels,
+and the kernels that take the most device time.  Run from the repository
+root on a machine with a card:
+
+    python tools/torch_sweep_profile.py [full|reverberant|reverberant_lm|
+                                         multi_spatial|multi_claim]
 """
 
 from __future__ import annotations
 
+import json
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
-SCENES = 512
+SRP_GOLDEN = REPO / "tests" / "data" / "torch_srp_golden.json"
+
+
+def _spec(sw, name: str):
+    """(SweepSpec, scenes) of the named spec."""
+    if name == "full":
+        return sw.SweepSpec(fs=44100.0, duration=1.0, signal_type="noise",
+                            source_box_lo=(0.1, 0.1, 0.1),
+                            source_box_hi=(0.9, 0.9, 0.9),
+                            snr_db=(20.0, 40.0)), 512
+
+    def tup(v):
+        return tuple(tup(x) for x in v) if isinstance(v, list) else v
+    case = json.loads(SRP_GOLDEN.read_text())[name]
+    spec = sw.SweepSpec(**{k: tup(v) for k, v in case["spec"].items()})
+    return spec, 128 if spec.num_sources > 1 else 512
 
 
 def main() -> int:
@@ -30,26 +55,25 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(REPO))
     from pyaudiolocalization_tpu_torch.parallel import sweep as sw
-    spec = sw.SweepSpec(fs=44100.0, duration=1.0, signal_type="noise",
-                        source_box_lo=(0.1, 0.1, 0.1),
-                        source_box_hi=(0.9, 0.9, 0.9), snr_db=(20.0, 40.0))
+    name = sys.argv[1] if len(sys.argv) > 1 else "full"
+    spec, scenes = _spec(sw, name)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    print(smi, flush=True)
-    sw.monte_carlo_sweep(spec, 0, SCENES, device="cuda")     # warm-up
+    print(f"{smi}; spec {name}, {scenes} scenes", flush=True)
+    sw.monte_carlo_sweep(spec, 0, scenes, device="cuda")     # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        sw.monte_carlo_sweep(spec, 1, SCENES, device="cuda")
+        sw.monte_carlo_sweep(spec, 1, scenes, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in events)
     kernels = sum(e.count for e in events)
-    print(f"profiled wall {wall * 1e3:.3f} ms for {SCENES} scenes, device "
+    print(f"profiled wall {wall * 1e3:.3f} ms for {scenes} scenes, device "
           f"time {device_us / 1e3:.3f} ms over {kernels} kernels, idle "
           f"{100 * (1 - device_us / 1e6 / wall):.1f} %")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
