@@ -2,14 +2,20 @@
 """Quickest proof that the PyTorch port runs on an NVIDIA GPU.
 
 Drives the port's main paths on ``cuda`` at full width (4 mics, 44.1 kHz,
-1 s, nfft 65,536), in five phases:
+1 s, nfft 65,536), in seven phases:
 
 1. device report (``nvidia-smi`` name and power limit);
 2. build of the kernels from ``pyaudiolocalization_tpu_torch/csrc``;
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes and at an edge shape, with kernel and plain times taken in
    turns, the least time the card could take (``bound_ms``) and, where one
-   PyTorch call computes the same function, that call's time;
+   PyTorch call computes the same function, that call's time; for K10's
+   three kernels (``ops/rowdft.py``) the cases phase 7 does not run: the
+   inverse, rep = 8 and zero_top at n2 = 64 and 1024, the lane DFT's
+   whitening prologue on independent spectra, the GCC-like chain on four
+   planes of their own and on the TPU tool's scaled copies, and precision
+   controls (one or two of the three TF32 products) that must miss the
+   limit the kernels meet;
 4. ``localize_sound_source`` in physical mode
    (``python -m pyaudiolocalization_tpu_torch --physical --no-calibration
    --no-plots``) on the demo scene and an off-centre chirp scene, cold and
@@ -41,7 +47,13 @@ Drives the port's main paths on ``cuda`` at full width (4 mics, 44.1 kHz,
    numpy-built scenes against the JAX answers; and batched GCC-PHAT pairs/s
    at ``bench_gcc_phat``'s shape (256 x 4 x 44,100, nfft 65,536).  Each
    path must launch K3 and K1 (the all-pairs GCC over every scene) and no
-   windowed kernel.
+   windowed kernel;
+7. K10's A/B bench (``tools/torch_rowdft_bench.py``) once at the TPU
+   tool's five shapes: the row DFT on the tensor cores against radix-2
+   passes, the lane DFT, the full forward by both schedules against
+   ``torch.fft.fft`` and K4a, and the chain by both schedules, every
+   kernel case held against its twin at every shape; n2 = 512 on 1024
+   planes (N = 65,536) gives K10's entries of the ``kernels`` line.
 
 Every path runs with the launch counts set to 0 just before it and read
 just after; each must have launched its kernels.  Any failure raises, and
@@ -80,6 +92,8 @@ GCC_SCENES = 256      # bench.py's bench_gcc_phat batch
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOP_S = 67e12
 CSRC = "pyaudiolocalization_tpu_torch/csrc/kernels.cu"
+ROWDFT_CSRC = "pyaudiolocalization_tpu_torch/csrc/rowdft.cu"
+MXU_TOOL = "tools/mxu_rowdft_bench.py"
 PALLAS = "pyaudiolocalization_tpu/ops/pallas_fft.py"
 PALLAS_KERNELS = "pyaudiolocalization_tpu/ops/pallas_kernels.py"
 NULL_DRAWS = 1000
@@ -95,6 +109,9 @@ KERNELS = {
     "noise_bootstrap_peaks": (CSRC, f"{PALLAS}:1326"),
     "whiten": (CSRC, f"{PALLAS_KERNELS}:34"),
     "whitened_corr": (CSRC, f"{PALLAS}:707"),
+    "row_dft": (ROWDFT_CSRC, f"{MXU_TOOL}:328"),
+    "row_stages": (ROWDFT_CSRC, f"{MXU_TOOL}:328"),
+    "lane_dft": (ROWDFT_CSRC, f"{MXU_TOOL}:328"),
 }
 
 
@@ -160,14 +177,14 @@ def compare(name, kernel_fn, plain_fn, tol, reps, least, scale_by_max=False,
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     err = 0.0
-    limit = tol
+    scale = 0.0
     for g, w in zip(got, want):
         if g.shape != w.shape or not bool(torch.isfinite(g).all()):
             raise AssertionError(f"{name}: kernel output shape "
                                  f"{tuple(g.shape)} or non-finite values")
         err = max(err, float((g - w).abs().max()))
-        if scale_by_max:
-            limit = tol * float(w.abs().max())
+        scale = max(scale, float(w.abs().max()))
+    limit = tol * scale if scale_by_max else tol
     if not err <= limit:
         raise AssertionError(f"{name}: max |kernel - plain| = {err:.3e} > "
                              f"{limit:.3e}")
@@ -421,7 +438,83 @@ def kernel_phase(cf, torch):
                                  f"split kernels by {gap:.3e}")
         if tag == "main":
             results["scene_windowed"] = res
+    start = time.perf_counter()
+    rowdft_checks(torch)
+    log(f"K10 checks of phase 3: {time.perf_counter() - start:.1f} s")
     return results
+
+
+def rowdft_checks(torch):
+    """Phase 3 for K10, the cases that phase 7's bench (which holds every
+    kernel against its twin at its five shapes) does not run: the inverse,
+    rep 8 and zero_top at edge shapes; the lane DFT's whitening prologue on
+    independent spectra; the chain on four planes of their own and the TPU
+    tool's chain (four scaled copies of one plane) at n2 = 64; and the
+    precision controls, K10a and K10c with one or two of the three TF32
+    products, which must miss the limit that the kernels meet.  Limits are
+    ``rowdft.TRANSFORM_TOL`` and ``CHAIN_TOL`` of max|twin|."""
+    from pyaudiolocalization_tpu_torch.ops import rowdft as rd
+    check = _load_tool("torch_rowdft_bench").check
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tt = rd.TRANSFORM_TOL
+
+    def planes(*shape):
+        return (torch.randn(shape + (rd.N1,), generator=gen, device=dev),
+                torch.randn(shape + (rd.N1,), generator=gen, device=dev))
+
+    def held(name, got, want, tol=tt):
+        err, scale = check(name, got, want, tol)
+        log(f"{name}: {err / scale:.3e} of max (limit {tol:g})")
+        return err / scale
+
+    for kind in ("row_dft", "row_stages"):
+        fn = getattr(rd, kind)
+        for tag, (b, n2, kw) in {
+                "inverse": (64, 64, {"inverse": True}),
+                "rep8": (32, 1024, {"rep": 8}),
+                "zero_top": (32, 1024, {"zero_top": True})}.items():
+            xr, xi = planes(b, n2)
+            args = (xr[:, :n2 // 2].contiguous(),) if tag == "zero_top" \
+                else (xr, xi)
+            held(f"{kind}[{tag}] B={b} n2={n2}", fn(*args, **kw),
+                 rd.row_dft_plain(*args, **kw))
+    for b, n2 in ((64, 64), (32, 1024)):
+        xr, xi = planes(b, n2)
+        yr, yi = planes(b, n2)
+        for kw in ({"conj": True, "twiddle": True}, {"twiddle": True},
+                   {"conj": True, "twiddle": True, "cross": (yr, yi)}):
+            tag = "+".join(k for k in kw if k != "cross") + (
+                " whitened cross" if "cross" in kw else "")
+            held(f"lane_dft[{tag}] B={b} n2={n2}", rd.lane_dft(xr, xi, **kw),
+                 rd.lane_dft_plain(xr, xi, **kw))
+    x4, _ = planes(4, 32, 64)
+    for schedule in ("mxu", "stages"):
+        held(f"chain[{schedule}, four planes] B=32 n2=64",
+             rd.chain(x4, schedule), rd.chain_plain(x4), rd.CHAIN_TOL)
+        held(f"chain[{schedule}, the tool's scaled copies] B=32 n2=64",
+             rd.chain(x4[0], schedule), rd.chain_plain(x4[0]), rd.CHAIN_TOL)
+    # The controls: the same kernels with fewer TF32 products.
+    xr, xi = planes(64, 512)
+    want_row = rd.row_dft_plain(xr, xi)
+    want_lane = rd.lane_dft_plain(xr, xi)
+    for terms in (3, 2, 1):
+        for name, got, want in (
+                ("row_dft", rd._row_launch("row_dft", xr, xi, 512, False, 1,
+                                           1.0, terms=terms), want_row),
+                ("lane_dft", rd._lane_launch(xr, xi, terms=terms),
+                 want_lane)):
+            label = f"{name}[{terms} TF32 products] B=64 n2=512"
+            if terms == 3:
+                held(label, got, want)
+                continue
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            rel = err / max(float(w.abs().max()) for w in want)
+            log(f"{label} (control): {rel:.3e} of max, must exceed {tt:g}")
+            if not rel > tt:
+                raise AssertionError(f"{label}: the control meets the limit "
+                                     f"{tt:g}, which cannot see the 3xTF32 "
+                                     "split")
 
 
 # ---------------------------------------------------------------------------
@@ -737,10 +830,9 @@ def _add(total, counts):
 # Phase 5: the sweep
 # ---------------------------------------------------------------------------
 
-def _load_scene_builder():
-    path = REPO / "tools" / "torch_sweep_golden.py"
-    spec = importlib.util.spec_from_file_location("torch_sweep_golden",
-                                                  path)
+def _load_tool(name):
+    path = REPO / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -840,7 +932,7 @@ def sweep_phase(cf, torch, sweep_golden, launches):
     check_statistics("sweep", fused.error, sweep_golden["sweep"])
 
     # (c) localize_batch on numpy-built scenes.
-    builder = _load_scene_builder()
+    builder = _load_tool("torch_sweep_golden")
     signals, _ = builder.batch_scenes(
         sweep_golden["localize_batch"]["seed"], BATCH_SCENES, spec.fs,
         spec.duration, spec.mic_positions, spec.speed_of_sound,
@@ -1055,7 +1147,7 @@ def srp_phase(cf, torch, srp_golden, launches):
     # (4) localize_batch srp on numpy-built scenes, per scene.
     case = srp_golden["localize_batch"]
     spec = _spec(case["spec"])
-    signals, _ = _load_scene_builder().batch_scenes(
+    signals, _ = _load_tool("torch_sweep_golden").batch_scenes(
         case["seed"], case["num_scenes"], spec.fs, spec.duration,
         spec.mic_positions, spec.speed_of_sound, spec.source_box_lo,
         spec.source_box_hi)
@@ -1085,6 +1177,40 @@ def srp_phase(cf, torch, srp_golden, launches):
     ms = time_ms(lambda: gccphat.gcc_phat_all_pairs(x, pi, pj, nfft=NFFT), 5)
     log(f"batched GCC-PHAT {GCC_SCENES} x 4 x {N} -> nfft {NFFT}: "
         f"{ms:.3f} ms, {GCC_SCENES * len(pi) / ms * 1e3:.0f} pairs/s")
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: K10's A/B bench
+# ---------------------------------------------------------------------------
+
+def rowdft_phase(cf, launches):
+    """tools/torch_rowdft_bench.py once (3 timed calls a case) at the TPU
+    tool's five shapes, each kernel case held against its twin; it must
+    launch all three K10 kernels and K4a.  Returns the kernels line's
+    entries of K10a/b/c at n2 = 512, B = 1024 (N = 65,536, the production
+    length).  Bounds count the plane's bytes (each input read once, each
+    output written once) and 5 N log2 N operations per complex N-point
+    transform, whatever implements them (not the tensor cores' extra
+    products)."""
+    bench = _load_tool("torch_rowdft_bench")
+    start = time.perf_counter()
+    res, counts = run_path(cf, "K10's A/B bench", lambda: bench.run(3, log),
+                           ("row_dft", "row_stages", "lane_dft", "fft_real"))
+    _add(launches, counts)
+    log(f"phase 7: {time.perf_counter() - start:.1f} s")
+    b, n2 = 1024, 512
+    main = res[(n2, b)]
+    ms, err = main["ms"], main["err"]
+    points = b * n2 * 128
+    row_bound = bound(16 * points, b * 128 * 5 * n2 * math.log2(n2))
+    lane_bound = bound(16 * points, b * n2 * 5 * 128 * 7)
+    return {
+        "row_dft": (err["rowdft"][0], ms["rowdft"], ms["row_plain"],
+                    ms["torch_row"]) + row_bound,
+        "row_stages": (err["stages"][0], ms["stages"], ms["row_plain"],
+                       ms["torch_row"]) + row_bound,
+        "lane_dft": (err["lane"][0], ms["lane"], ms["lane_plain"],
+                     ms["torch_lane"]) + lane_bound}
 
 
 def main() -> int:
@@ -1126,13 +1252,14 @@ def main() -> int:
     # Phase 3: kernels against their plain versions.
     results = kernel_phase(cf, torch)
 
-    # Phases 4, 4b, 5 and 6: the main paths, each with its own launch
+    # Phases 4, 4b, 5, 6 and 7: the main paths, each with its own launch
     # counts.
     launches = {name: 0 for name in KERNELS}
     main_path_phase(cf, torch, slice_golden, sweep_golden, launches)
     options_phase(cf, torch, slice_golden, options_golden, launches)
     sweep_phase(cf, torch, sweep_golden, launches)
     srp_phase(cf, torch, srp_golden, launches)
+    results.update(rowdft_phase(cf, launches))
     log(f"launches over the main paths: {launches}")
     missing = [k for k in KERNELS if launches.get(k, 0) == 0]
     if missing:

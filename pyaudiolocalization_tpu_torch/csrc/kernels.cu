@@ -802,3 +802,6 @@ int palt_scene_windowed(const float* base, int scenes, int len,
 }
 
 }  // extern "C"
+
+// K10: the four-step row DFT, its radix-2 passes and the lane DFT.
+#include "rowdft.cu"

@@ -18,6 +18,11 @@ delay_sum             bfly_delay_sum (:1851)                 memory: FFT passes
 whiten                pallas_kernels.phat_whiten_planes (:34) memory: 16 B/bin
 ===================== ====================================== ==================
 
+The three kernels of K10, the TPU package's A/B tool of FFT schedules
+(``tools/mxu_rowdft_bench.py:328``), are wrapped by ``ops/rowdft.py``
+(``row_dft``, ``row_stages``, ``lane_dft``) and built into the same
+library from ``csrc/rowdft.cu``; their launches count here too.
+
 All but ``whiten`` are built from one FFT (``csrc/fft.cuh``): radix-2
 Stockham passes over rows in device memory, 16 bytes moved per point per
 pass, so every such kernel is bound by device-memory (and L2) bandwidth
@@ -69,7 +74,8 @@ LAUNCHES: Dict[str, int] = {"fft_real": 0, "gcc_all_pairs": 0,
                             "gcc_windowed": 0, "bootstrap_peaks": 0,
                             "delay_sum": 0, "scene_windowed": 0,
                             "noise_bootstrap_peaks": 0, "whiten": 0,
-                            "whitened_corr": 0}
+                            "whitened_corr": 0, "row_dft": 0,
+                            "row_stages": 0, "lane_dft": 0}
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -150,6 +156,12 @@ def _library() -> ctypes.CDLL:
             "palt_scene_windowed": [p, i, i, p, p, i, i, i, i, p, p, p, p, p,
                                     i, p, f, i, p, p, p, p, p, p, p, p, p,
                                     p],
+            "palt_row_dft": [p, p, i, i, i, i, i, f, p, p, p, p, p, p, p, i,
+                             i, p],
+            "palt_row_stages": [p, p, i, i, i, i, i, f, p, p, p, p, p, p, p,
+                                i, p],
+            "palt_lane_dft": [p, p, p, p, i, i, f, i, p, p, p, p, p, p,
+                              i, p],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)

@@ -469,3 +469,144 @@ def test_full_correlation_sweep_on_the_card(cuda, change):
     cpu = monte_carlo_sweep(spec, 0, 16, device="cpu")
     for s in (card, cpu):
         assert float(s.hit_rate) > 0.8
+
+
+# ---------------------------------------------------------------------------
+# K10: the four-step row DFT (ops/rowdft.py).  Limits: rowdft.TRANSFORM_TOL
+# (5e-5) of max|plain| for transforms, rowdft.CHAIN_TOL (2e-3) for the
+# chain.
+# ---------------------------------------------------------------------------
+
+_K10_SHAPES = [(64, 33), (128, 16), (256, 8), (512, 8), (1024, 4)]
+
+
+def _rel_err(got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    scale = max(float(w.abs().max()) for w in want)
+    return max(float((g - w).abs().max()) for g, w in zip(got, want)) / scale
+
+
+def _planes(cuda, b, n2, seed=0):
+    g = _gen(cuda, seed)
+    return (torch.randn((b, n2, 128), generator=g, device=cuda),
+            torch.randn((b, n2, 128), generator=g, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n2,b", _K10_SHAPES)
+@pytest.mark.parametrize("kind", ["row_dft", "row_stages"])
+def test_row_kernels_match_plain(cuda, kind, n2, b):
+    from pyaudiolocalization_tpu_torch.ops import rowdft as rd
+    fn = getattr(rd, kind)
+    xr, xi = _planes(cuda, b, n2)
+    half = xr[:, :n2 // 2].contiguous()
+    for args, kw in (((xr, xi), {}), ((xr, xi), {"inverse": True}),
+                     ((xr, xi), {"rep": 8}), ((xr,), {}),
+                     ((half,), {"zero_top": True})):
+        cf.reset_launches()
+        got = fn(*args, **kw)
+        assert cf.LAUNCHES[kind] == 1
+        want = rd.row_dft_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert _rel_err(got, want) < rd.TRANSFORM_TOL, (kw, len(args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n2", [64, 512, 1024])
+def test_row_kernels_round_trip(cuda, n2):
+    from pyaudiolocalization_tpu_torch.ops import rowdft as rd
+    xr, xi = _planes(cuda, 4, n2, 1)
+    for fn in (rd.row_dft, rd.row_stages):
+        yr, yi = fn(*fn(xr, xi), inverse=True)
+        assert _rel_err((yr / n2, yi / n2), (xr, xi)) < rd.TRANSFORM_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n2,b", _K10_SHAPES)
+def test_lane_kernel_matches_plain(cuda, n2, b):
+    """Every prologue and epilogue; the whitened cross spectrum on two
+    independent spectra."""
+    from pyaudiolocalization_tpu_torch.ops import rowdft as rd
+    xr, xi = _planes(cuda, b, n2, 2)
+    yr, yi = _planes(cuda, b, n2, 12)
+    for kw in ({}, {"twiddle": True}, {"conj": True},
+               {"conj": True, "twiddle": True},
+               {"conj": True, "twiddle": True, "cross": (yr, yi)},
+               {"cross": (yr, yi)}):
+        cf.reset_launches()
+        got = rd.lane_dft(xr, xi, **kw)
+        assert cf.LAUNCHES["lane_dft"] == 1
+        want = rd.lane_dft_plain(xr, xi, **kw)
+        torch.cuda.synchronize()
+        assert _rel_err(got, want) < rd.TRANSFORM_TOL, sorted(kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n2", [64, 512, 1024])
+@pytest.mark.parametrize("schedule", ["mxu", "stages"])
+def test_four_step_and_chain_on_the_card(cuda, schedule, n2):
+    """The full forward, and the chain on four planes of their own (whose
+    output is not ~0 away from lag 0, so the whitening prologue and the
+    real-part store and add epilogues show) and on the tool's four scaled
+    copies of one plane."""
+    from pyaudiolocalization_tpu_torch.ops import rowdft as rd
+    row = "row_dft" if schedule == "mxu" else "row_stages"
+    other = "row_stages" if schedule == "mxu" else "row_dft"
+    x, _ = _planes(cuda, 3, n2, 3)
+    for zero_top in (False, True):
+        xin = x[:, :n2 // 2].contiguous() if zero_top else x
+        cf.reset_launches()
+        got = rd.fft_four_step(xin, schedule, zero_top)
+        assert cf.LAUNCHES[row] == 1 and cf.LAUNCHES["lane_dft"] == 1
+        assert got.shape == (3, n2 * 128) and got.dtype == torch.complex64
+        want = rd.fft_four_step_plain(xin, zero_top)
+        torch.cuda.synchronize()
+        assert _rel_err(got, want) < rd.TRANSFORM_TOL
+    x4 = torch.randn((4, 3, n2, 128), generator=_gen(cuda, 13), device=cuda)
+    for xin in (x4, x):
+        cf.reset_launches()
+        got = rd.chain(xin, schedule)
+        assert cf.LAUNCHES[row] == 7 and cf.LAUNCHES["lane_dft"] == 7
+        assert cf.LAUNCHES[other] == 0
+        assert got.shape == (3, n2, 128)
+        want = rd.chain_plain(xin)
+        torch.cuda.synchronize()
+        assert _rel_err(got, want) < rd.CHAIN_TOL
+        if xin is x4:  # no single lag dominates what is compared
+            assert float(want.abs().max()) < 100 * float(want.abs().median())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n2", [64, 1024])
+def test_precision_controls_miss_the_limit(cuda, n2):
+    """K10a and K10c with one or two of the three TF32 products miss the
+    limit that the 3xTF32 kernels meet, so the limit sees the split."""
+    from pyaudiolocalization_tpu_torch.ops import rowdft as rd
+    xr, xi = _planes(cuda, 8, n2, 4)
+    want_row = rd.row_dft_plain(xr, xi)
+    want_lane = rd.lane_dft_plain(xr, xi)
+    for terms in (3, 2, 1):
+        row = _rel_err(rd._row_launch("row_dft", xr, xi, n2, False, 1, 1.0,
+                                      terms=terms), want_row)
+        lane = _rel_err(rd._lane_launch(xr, xi, terms=terms), want_lane)
+        if terms == 3:
+            assert row < rd.TRANSFORM_TOL and lane < rd.TRANSFORM_TOL
+        else:
+            assert row > rd.TRANSFORM_TOL and lane > rd.TRANSFORM_TOL, terms
+
+
+@pytest.mark.cuda
+def test_rowdft_wrappers_raise_on_the_card(cuda):
+    from pyaudiolocalization_tpu_torch.ops import rowdft as rd
+    xr, xi = _planes(cuda, 2, 64)
+    for call in (lambda: rd.row_dft(xr.double(), xi.double()),
+                 lambda: rd.row_stages(xr.transpose(0, 1).contiguous()
+                                       .transpose(0, 1)),
+                 lambda: rd.lane_dft(xr, xi.double()),
+                 lambda: rd.lane_dft(xr, xi, cross=(xr, xi.cpu())),
+                 lambda: rd.fft_four_step(xr[:, :32].contiguous()),
+                 lambda: rd.chain(torch.stack([xr] * 3)),
+                 lambda: rd.row_dft(xr, xi.cpu())):
+        with pytest.raises(ValueError):
+            call()

@@ -174,9 +174,9 @@ def test_fade_window_and_delay_and_sum_match_jax(rng):
 
 
 def test_port_imports_without_jax():
-    """Every module of the port, and the numpy scene builder that
-    ``chip_smoke.py`` loads from tools/torch_sweep_golden.py, imports with
-    jax blocked."""
+    """Every module of the port, the numpy scene builder that
+    ``chip_smoke.py`` loads from tools/torch_sweep_golden.py, and K10's A/B
+    bench (tools/torch_rowdft_bench.py) import with jax blocked."""
     code = (
         "import sys, pkgutil, importlib, importlib.util\n"
         "sys.modules['jax'] = None\n"
@@ -192,6 +192,11 @@ def test_port_imports_without_jax():
         "sigs, _ = tool.batch_scenes(0, 2, 8000.0, 0.05, tool.MICS, 343.0, "
         "(0.2,) * 3, (0.8,) * 3)\n"
         "assert sigs.shape == (2, 4, 400)\n"
+        "spec = importlib.util.spec_from_file_location('rowdft_bench', "
+        "'tools/torch_rowdft_bench.py')\n"
+        "bench = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(bench)\n"
+        "assert len(bench.SHAPES) == 5 and callable(bench.run)\n"
         "assert not any(k == 'pyaudiolocalization_tpu' or "
         "k.startswith('pyaudiolocalization_tpu.') for k in sys.modules)\n"
         "assert sys.modules['jax'] is None\n"
