@@ -9,8 +9,11 @@ Drives the port's main paths on ``cuda`` at full width (4 mics, 44.1 kHz,
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes and at an edge shape, with kernel and plain times taken in
    turns, the least time the card could take (``bound_ms``) and, where one
-   PyTorch call computes the same function, that call's time; for K10's
-   three kernels (``ops/rowdft.py``) the cases phase 7 does not run: the
+   PyTorch call computes the same function, that call's time (K4a also
+   at no_gate's 131,072, the single pair's two rows and 1024 rows against
+   ``torch.fft.rfft``, with device times; K4b also at no_gate's 131,072);
+   for K10's three kernels (``ops/rowdft.py``) the cases phase 7 does not
+   run: the
    inverse, rep = 8 and zero_top at n2 = 64 and 1024, the lane DFT's
    whitening prologue on independent spectra, the GCC-like chain on four
    planes of their own and on the TPU tool's scaled copies, and precision
@@ -49,11 +52,12 @@ Drives the port's main paths on ``cuda`` at full width (4 mics, 44.1 kHz,
    path must launch K3 and K1 (the all-pairs GCC over every scene) and no
    windowed kernel;
 7. K10's A/B bench (``tools/torch_rowdft_bench.py``) once at the TPU
-   tool's five shapes: the row DFT on the tensor cores against radix-2
-   passes, the lane DFT, the full forward by both schedules against
-   ``torch.fft.fft`` and K4a, and the chain by both schedules, every
-   kernel case held against its twin at every shape; n2 = 512 on 1024
-   planes (N = 65,536) gives K10's entries of the ``kernels`` line.
+   tool's five shapes: the row DFT on the tensor cores against butterfly
+   stages on chip, the lane DFT, the full forward by both schedules
+   against ``torch.fft.fft`` and K4a (against ``torch.fft.rfft``), and the
+   chain by both schedules, every kernel case held against its twin at
+   every shape; n2 = 512 on 1024 planes (N = 65,536) gives K10's entries
+   of the ``kernels`` line.
 
 Every path runs with the launch counts set to 0 just before it and read
 just after; each must have launched its kernels.  Any failure raises, and
@@ -325,22 +329,43 @@ def kernel_phase(cf, torch):
         if tag == "main":
             results["gcc_windowed"] = res
 
-    # K4a + K4b: bootstrap null at 1000 permuted rows (edge: 999 rows).
+    # K4a: the bootstrap's and the api's single row (main), no_gate's at
+    # 131,072, the single pair's two rows, 1024 rows of phase 7's length
+    # and an edge of one block; torch.fft.rfft is the library call.  The
+    # device time per call (torch.profiler) is logged beside the CUDA-event
+    # time, which a single row's host time between calls dominates.
+    device_ms = _load_tool("torch_rowdft_bench").device_ms
+    for tag, (rows_n, length, nfft) in {
+            "main": (1, N, NFFT), "no_gate": (1, N, 2 * NFFT),
+            "single_pair": (2, N, NFFT), "rows": (1024, NFFT, NFFT),
+            "edge": (1, 3000, 4096)}.items():
+        x = randn(rows_n, length).contiguous()
+        res = compare(
+            f"fft_real[{tag}] rows={rows_n} len={length} nfft={nfft}",
+            lambda: cf.fft_real(x, nfft),
+            lambda: cf.fft_real_plain(x, nfft), tol=5e-6,
+            reps=20 if rows_n < 1024 else 5,
+            least=bound(rows_n * (4 * length + 8 * (nfft // 2 + 1)),
+                        rows_n * _rfft_ops(nfft)),
+            scale_by_max=True,
+            library_fn=lambda: torch.fft.rfft(x, n=nfft))
+        log(f"fft_real[{tag}] device time per call: kernel "
+            f"{device_ms(lambda: cf.fft_real(x, nfft))['total']:.4f} ms, "
+            f"torch.fft.rfft "
+            f"{device_ms(lambda: torch.fft.rfft(x, n=nfft))['total']:.4f} ms")
+        if tag == "main":
+            results["fft_real"] = res
+
+    # K4b: bootstrap null at 1000 permuted rows, at the main path's 65,536
+    # and no_gate's 131,072 (edge: 999 rows).
     for tag, (rows_n, length, nfft) in {"main": (1000, N, NFFT),
+                                        "no_gate": (1000, N, 2 * NFFT),
                                         "edge": (999, 3000, 4096)}.items():
-        sig1 = randn(1, length).contiguous()
         sig2 = randn(length)
         keys = rand(rows_n, length)
         rows = sig2[torch.argsort(keys, dim=-1)].contiguous()
-        res_a = compare(
-            f"fft_real[{tag}] rows=1 len={length} nfft={nfft}",
-            lambda: cf.fft_real(sig1, nfft),
-            lambda: cf.fft_real_plain(sig1, nfft), tol=5e-6, reps=20,
-            least=bound(4 * length + 8 * (nfft // 2 + 1), _rfft_ops(nfft)),
-            scale_by_max=True,
-            library_fn=lambda: torch.fft.rfft(sig1, n=nfft))
-        s1 = cf.fft_real_plain(sig1, nfft)[0].contiguous()
-        res_b = compare(
+        s1 = cf.fft_real_plain(randn(1, length), nfft)[0].contiguous()
+        res = compare(
             f"bootstrap_peaks[{tag}] rows={rows_n} len={length} nfft={nfft}",
             lambda: cf.bootstrap_peaks(s1, rows, nfft),
             lambda: cf.bootstrap_peaks_plain(s1, rows, nfft),
@@ -348,8 +373,7 @@ def kernel_phase(cf, torch):
             least=bound(8 * (nfft // 2 + 1) + 4 * rows_n * (length + 1),
                         rows_n * (2 * _rfft_ops(nfft) + (nfft // 2) * 15)))
         if tag == "main":
-            results["fft_real"] = res_a
-            results["bootstrap_peaks"] = res_b
+            results["bootstrap_peaks"] = res
 
     # K6: the noise null, 1000 draws of 44,100 samples (edge: an odd draw
     # count and n_samp <= nfft/2, the TPU kernel's pruned shape).  Bound:

@@ -1,17 +1,33 @@
-// Batched power-of-two complex FFT for the port's kernels (sm_90a).
+// Batched power-of-two complex FFTs for the port's kernels (sm_90a), in
+// two schedules.  Twiddles come from one table tw[m] = exp(-2*pi*i*m/n),
+// m < n/2, made in double precision on the host and rounded once to f32
+// (w = -tw[e - n/2] for e >= n/2); inverses use the conjugates (no 1/n
+// scale).
 //
-// One radix-2 Stockham pass per launch over rows in device memory,
-// ping-ponging between two buffers; after log2(n) passes the row is in
-// natural order.  Twiddles come from a table tw[m] = exp(-2*pi*i*m/n),
-// m < n/2, made in double precision on the host and rounded once to f32;
-// inverse passes use the conjugate (no 1/n scale).
+// 1. Passes through device memory (`stockham_pass`, `fft_rows`): one
+//    radix-2 Stockham pass per launch over rows in device memory,
+//    ping-ponging between two buffers; after log2(n) passes the row is in
+//    natural order.  A 65,536-point row is 512 KB, more than the 227 KB of
+//    shared memory a block can hold, so every pass streams the rows
+//    through device memory (and the 50 MB L2): 16 bytes per point per
+//    pass, about 16 * log2(n) bytes per point and transform, and one
+//    launch per pass.  K1, K2, K3, K4b, K5, K6 and K9 run on it; they
+//    fuse their first or last pass into a prologue or epilogue.
 //
-// Bounds: a 65,536-point row is 512 KB, more than the 227 KB of shared
-// memory a block can hold, so every pass streams the rows through device
-// memory (and the 50 MB L2): each pass reads and writes 16 bytes per
-// point, which makes the transform memory-bound at about 16 * log2(n)
-// bytes per point.  Shared-memory sub-transforms (a four-step split) are
-// the speed work that comes after correctness.
+// 2. On-chip sub-transforms (`block_fft`): one block transforms S
+//    sequences of length L (L * S <= kElems * 1024) held in shared memory,
+//    all log2(L) stages in one launch: Stockham stages of radix 16 (one of
+//    radix 2, 4 or 8 first where log2(L) is not a multiple of 4), kElems
+//    points a thread per stage in registers, a shared-memory exchange
+//    between stages (two __syncthreads each).  Sub-twiddles
+//    exp(-2*pi*i*q/L), q < L/2, are staged in shared memory from the
+//    table (`stage_twiddles`).  The
+//    caller loads the strip with coalesced reads and hands the result to
+//    its own epilogue, so a launch moves 16 bytes per complex point (8 in,
+//    8 out), not 16 per point per pass.  A longer row is a four-step
+//    product n = n1 * n2 of two such launches (K4a); the length-n2 rows of
+//    a (n2, 128) plane are one (K10b).  Bound: device memory, one read
+//    and one write per launch.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,6 +35,8 @@
 namespace palt {
 
 constexpr int kThreads = 256;
+constexpr int kStrip = 16;  // sequences a strip transform holds (tuned)
+constexpr int kElems = 16;  // points a thread holds per stage
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
@@ -77,6 +95,186 @@ inline int log2_int(int n) {
   int l = 0;
   while ((1 << l) < n) ++l;
   return l;
+}
+
+// ---- on-chip sub-transforms ----------------------------------------------
+
+// The dynamic shared memory of a kernel built on block_fft.
+__device__ __forceinline__ float2* fft_shared() {
+  extern __shared__ __align__(16) float2 palt_fft_smem[];
+  return palt_fft_smem;
+}
+
+// Lets Kernel take the device's whole opt-in shared memory (the launch
+// asks for what it uses), once per device: the attribute call costs host
+// time that a one-row transform would pay on every call.
+template <auto Kernel>
+inline cudaError_t allow_smem() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
+  int bytes = 0;
+  err = cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
+
+// Threads of a block that transforms S sequences of length L.
+inline int fft_threads(int L, int S) {
+  return (L * S + kElems - 1) / kElems;
+}
+
+// stw[q] = tw[q * stride] = exp(-2*pi*i*q/L), q < L/2, where tw is the
+// table of a length n = L * stride.
+__device__ __forceinline__ void stage_twiddles(float2* stw,
+                                               const float2* __restrict__ tw,
+                                               int L, int stride) {
+  for (int q = threadIdx.x; q < (L >> 1); q += blockDim.x)
+    stw[q] = tw[(size_t)q * stride];
+}
+
+// exp(-2*pi*i*e/L) from the half table (sgn < 0: its conjugate), e < L.
+__device__ __forceinline__ float2 sub_twiddle(const float2* stw, int e,
+                                              int half, float sgn) {
+  float2 w = e < half ? stw[e] : stw[e - half];
+  if (e >= half) w = make_float2(-w.x, -w.y);
+  w.y *= sgn;
+  return w;
+}
+
+// exp(-2*pi*i*e/16), e < 16 (sgn < 0: the conjugate); e is a constant
+// once the callers' loops are unrolled.
+__device__ __forceinline__ float2 w16(int e, float sgn) {
+  constexpr float c[16] = {
+      1.0f, 0.92387953251128674f, 0.70710678118654752f,
+      0.38268343236508977f, 0.0f, -0.38268343236508977f,
+      -0.70710678118654752f, -0.92387953251128674f, -1.0f,
+      -0.92387953251128674f, -0.70710678118654752f, -0.38268343236508977f,
+      0.0f, 0.38268343236508977f, 0.70710678118654752f,
+      0.92387953251128674f};
+  return make_float2(c[e], -sgn * c[(e + 12) & 15]);  // sin = cos(. - pi/2)
+}
+
+// In-register DFT of R = 2, 4, 8 or 16 points; sgn < 0 is the unscaled
+// inverse.  8 and 16 split as R = 4 * R2: point m = R2*a + b (a < 4,
+// b < R2), bin c + 4*d: a DFT-4 over a for each b, times W_R^{bc}, a
+// DFT-R2 over b for each c.
+template <int R>
+__device__ __forceinline__ void dft_small(float2 (&v)[R], float sgn) {
+  if constexpr (R == 2) {
+    const float2 a = v[0];
+    v[0] = make_float2(a.x + v[1].x, a.y + v[1].y);
+    v[1] = make_float2(a.x - v[1].x, a.y - v[1].y);
+  } else if constexpr (R == 4) {
+    const float2 t0 = make_float2(v[0].x + v[2].x, v[0].y + v[2].y);
+    const float2 t1 = make_float2(v[0].x - v[2].x, v[0].y - v[2].y);
+    const float2 t2 = make_float2(v[1].x + v[3].x, v[1].y + v[3].y);
+    const float2 d = make_float2(v[1].x - v[3].x, v[1].y - v[3].y);
+    const float2 t3 = make_float2(sgn * d.y, -sgn * d.x);  // -i*sgn*d
+    v[0] = make_float2(t0.x + t2.x, t0.y + t2.y);
+    v[2] = make_float2(t0.x - t2.x, t0.y - t2.y);
+    v[1] = make_float2(t1.x + t3.x, t1.y + t3.y);
+    v[3] = make_float2(t1.x - t3.x, t1.y - t3.y);
+  } else {
+    constexpr int R1 = 4;
+    constexpr int R2 = R / 4;
+    float2 u[R2][R1];
+#pragma unroll
+    for (int b = 0; b < R2; ++b) {
+#pragma unroll
+      for (int a = 0; a < R1; ++a) u[b][a] = v[R2 * a + b];
+      dft_small<R1>(u[b], sgn);
+#pragma unroll
+      for (int c = 1; c < R1; ++c)
+        if (b > 0) u[b][c] = cmul(u[b][c], w16(b * c * (16 / R), sgn));
+    }
+#pragma unroll
+    for (int c = 0; c < R1; ++c) {
+      float2 t[R2];
+#pragma unroll
+      for (int b = 0; b < R2; ++b) t[b] = u[b][c];
+      dft_small<R2>(t, sgn);
+#pragma unroll
+      for (int d = 0; d < R2; ++d) v[c + R1 * d] = t[d];
+    }
+  }
+}
+
+// One radix-R Stockham stage in place over the strip, p = the length of
+// the sub-transforms done.  Butterfly i of sequence s reads points
+// i + m*L/R, multiplies point m by W_{pR}^{m k} (k = i mod p), and writes
+// the R-point DFT to (i - k)*R + k + m*p.  Thread t takes butterflies
+// t + u*blockDim.x, u < kElems/R, sequence fastest (s = task mod S), so a
+// half-warp touches 16 neighbouring sequences.  The first stage (p = 1)
+// needs no twiddle.
+template <int S, int R>
+__device__ __forceinline__ void stockham_stage(float2* x, int js, int ss,
+                                               int L, int p,
+                                               const float2* stw, float sgn) {
+  constexpr int kTasks = kElems / R;
+  const int q = L / R;
+  const int tasks = q * S;
+  const int half = L >> 1;
+  const int tstep = L / (p * R);  // W_{pR}^{mk} = W_L^{mk * tstep}
+  float2 v[kTasks][R];
+#pragma unroll
+  for (int u = 0; u < kTasks; ++u) {
+    const int task = threadIdx.x + u * blockDim.x;
+    if (task < tasks) {
+      const int s = task % S;
+      const int i = task / S;
+      const int k = i & (p - 1);
+      const float2* xs = x + s * ss;
+#pragma unroll
+      for (int m = 0; m < R; ++m) v[u][m] = xs[(i + m * q) * js];
+      if (p > 1) {
+#pragma unroll
+        for (int m = 1; m < R; ++m)
+          v[u][m] = cmul(v[u][m], sub_twiddle(stw, m * k * tstep, half, sgn));
+      }
+      dft_small<R>(v[u], sgn);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < kTasks; ++u) {
+    const int task = threadIdx.x + u * blockDim.x;
+    if (task < tasks) {
+      const int s = task % S;
+      const int i = task / S;
+      const int k = i & (p - 1);
+      float2* xs = x + s * ss;
+      const int base = (i - k) * R + k;
+#pragma unroll
+      for (int m = 0; m < R; ++m) xs[(base + m * p) * js] = v[u][m];
+    }
+  }
+  __syncthreads();
+}
+
+// In-place L-point FFT (L a power of two >= 4) of S sequences in shared
+// memory, point j of sequence s at x[j*js + s*ss], natural order in and
+// out: one stage of radix 2^(log2(L) mod 4) first where that is not 1,
+// then radix-16 stages.  stw: the L/2 sub-twiddles in shared memory.
+// sgn = 1 forward, -1 the unscaled inverse.  Needs blockDim.x >=
+// fft_threads(L, S); every thread of the block calls it.  Synchronizes on
+// entry and exit.
+template <int S>
+__device__ void block_fft(float2* x, int js, int ss, int L,
+                          const float2* stw, float sgn) {
+  __syncthreads();
+  int bits = 0;
+  while ((1 << bits) < L) ++bits;
+  int p = 1 << (bits & 3);
+  if (p == 2) stockham_stage<S, 2>(x, js, ss, L, 1, stw, sgn);
+  if (p == 4) stockham_stage<S, 4>(x, js, ss, L, 1, stw, sgn);
+  if (p == 8) stockham_stage<S, 8>(x, js, ss, L, 1, stw, sgn);
+  for (; p < L; p <<= 4) stockham_stage<S, 16>(x, js, ss, L, p, stw, sgn);
 }
 
 }  // namespace palt

@@ -34,15 +34,19 @@ namespace {
 
 constexpr int kRowThreads = 1024;
 
+// Spectrum bin k of the real row packed as the real part (odd = 0) or the
+// imaginary part (odd = 1) of a complex row Z, from zk = Z[k] and zm =
+// Z[(n - k) mod n]; exactly real at DC and Nyquist (zk = zm).
+__device__ __forceinline__ float2 split_bin(float2 zk, float2 zm, int odd) {
+  if (!odd) return make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
+  return make_float2(0.5f * (zk.y + zm.y), -0.5f * (zk.x - zm.x));
+}
+
 // Spectrum bin k (0 <= k <= n/2) of real row r, from rows packed in pairs.
 __device__ __forceinline__ float2 unpack_bin(const float2* z, int r, int k,
                                              int n) {
   const float2* row = z + (size_t)(r >> 1) * (size_t)n;
-  const float2 zk = row[k];
-  const float2 zm = row[(n - k) & (n - 1)];
-  if ((r & 1) == 0)
-    return make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
-  return make_float2(0.5f * (zk.y + zm.y), -0.5f * (zk.x - zm.x));
+  return split_bin(row[k], row[(n - k) & (n - 1)], r & 1);
 }
 
 // Writes bins k and n-k of the packed spectrum ya + i*yb of two Hermitian
@@ -165,15 +169,194 @@ inline int bin_blocks(int n) {
 }
 
 // ---- K4a: forward spectrum of real rows, natural order -------------------
+//
+// Real rows 2c and 2c+1 are packed as z = a + i*b while loading.  With
+// n = n1 * n2, j = n2*j1 + j2 and k = k1 + n1*k2:
+//   Z[k1 + n1 k2] = sum_j2 W_n2^{j2 k2} W_n^{j2 k1}
+//                   * sum_j1 W_n1^{j1 k1} z[n2 j1 + j2].
+// Pass 1 (`fft_real_cols`) runs the n1-point DFTs down strips of kStrip
+// columns j2 and writes Y[k1, j2] times W_n^{j2 k1}, row-major; pass 2
+// (`fft_real_rows`) runs the n2-point DFTs along rows k1 and splits the
+// two real spectra in its epilogue: Z[n - k] lies in row (n1 - k1) mod n1
+// at k2' = n2 - 1 - k2 (k1 != 0) or (n2 - k2) mod n2 (k1 = 0), so each
+// block holds S/2 consecutive rows k1 < n1/2 with their partners
+// n1 - k1 (block 0 holds row n1/2, its own partner, in the slot of row
+// 0's) and writes bins 0..n/2 of both real rows straight to the output.
+// For n <= 4096 one block holds the packed row (`fft_real_block`).
 
-__global__ void unpack_half(const float2* __restrict__ z, int n,
-                            float2* __restrict__ out) {
-  const int r = blockIdx.y;
+// Row of Y in slot r (< 2 * pairs) of pass-2 block b.
+__device__ __forceinline__ int pair_row(int b, int r, int n1, int pairs) {
+  const int own = b * pairs + (r % pairs);
+  if (r < pairs) return own;
+  return own == 0 ? n1 / 2 : n1 - own;
+}
+
+__global__ void __launch_bounds__(1024)
+fft_real_block(const float* __restrict__ x, int rows, int len, int n,
+               const float2* __restrict__ tw, float2* __restrict__ out) {
+  using palt::kElems;
+  float2* stw = palt::fft_shared();
+  float2* buf = stw + (n >> 1);
+  const int c = blockIdx.x;
+  const bool two = 2 * c + 1 < rows;
+  const float* xa = x + (size_t)(2 * c) * len;
+  const float* xb = xa + len;
+  palt::stage_twiddles(stw, tw, n, 1);
+  // Every load of the thread in flight before the first store.
+  float2 v[kElems];
+#pragma unroll
+  for (int u = 0; u < kElems; ++u) {
+    const int t = threadIdx.x + u * blockDim.x;
+    const bool live = t < len && t < n;
+    v[u] = make_float2(live ? xa[t] : 0.0f, live && two ? xb[t] : 0.0f);
+  }
+#pragma unroll
+  for (int u = 0; u < kElems; ++u) {
+    const int t = threadIdx.x + u * blockDim.x;
+    if (t < n) buf[t] = v[u];
+  }
+  palt::block_fft<1>(buf, 1, 0, n, stw, 1.0f);
   const int bins = (n >> 1) + 1;
-  float2* o = out + (size_t)r * (size_t)bins;
-  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < bins;
-       k += gridDim.x * blockDim.x)
-    o[k] = unpack_bin(z, r, k, n);
+  float2* oa = out + (size_t)(2 * c) * bins;
+  for (int k = threadIdx.x; k < bins; k += blockDim.x) {
+    const float2 zk = buf[k];
+    const float2 zm = buf[(n - k) & (n - 1)];
+    oa[k] = split_bin(zk, zm, 0);
+    if (two) oa[bins + k] = split_bin(zk, zm, 1);
+  }
+}
+
+// Pass 1.  Grid (n2 / kStrip column strips, packed rows).  The twiddle
+// W_n^e, e = j2*k1 < n, is W_n2^{e / n1} * W_n^{e mod n1}, both factors
+// from tables staged in shared memory (n2 and n1 entries).
+__global__ void __launch_bounds__(1024)
+fft_real_cols(const float* __restrict__ x, int rows, int len, int n1, int n2,
+              const float2* __restrict__ tw, float2* __restrict__ y) {
+  using palt::kElems;
+  using palt::kStrip;
+  float2* stw = palt::fft_shared();
+  float2* lo = stw + (n1 >> 1);  // W_n^r, r < n1
+  float2* hi = lo + n1;          // W_n2^a, a < n2
+  float2* buf = hi + n2;
+  const int n = n1 * n2;
+  const int c = blockIdx.y;
+  const int c0 = blockIdx.x * kStrip;
+  const bool two = 2 * c + 1 < rows;
+  const float* xa = x + (size_t)(2 * c) * len;
+  const float* xb = xa + len;
+  palt::stage_twiddles(stw, tw, n1, n2);
+  for (int r = threadIdx.x; r < n1; r += blockDim.x) lo[r] = tw[r];
+  for (int a = threadIdx.x; a < n2; a += blockDim.x) {
+    const float2 w = tw[(size_t)(a & ((n2 >> 1) - 1)) * n1];
+    hi[a] = a < (n2 >> 1) ? w : make_float2(-w.x, -w.y);
+  }
+  const int total = n1 * kStrip;
+  float2 v[kElems];
+#pragma unroll
+  for (int u = 0; u < kElems; ++u) {
+    const int idx = threadIdx.x + u * blockDim.x;
+    const int t = (idx / kStrip) * n2 + c0 + idx % kStrip;
+    const bool live = idx < total && t < len;
+    v[u] = make_float2(live ? xa[t] : 0.0f, live && two ? xb[t] : 0.0f);
+  }
+#pragma unroll
+  for (int u = 0; u < kElems; ++u) {
+    const int idx = threadIdx.x + u * blockDim.x;
+    if (idx < total) buf[idx] = v[u];
+  }
+  palt::block_fft<kStrip>(buf, kStrip, 1, n1, stw, 1.0f);
+  const int shift = __ffs(n1) - 1;
+  float2* yc = y + (size_t)c * n;
+  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+    const int k1 = idx / kStrip;
+    const int j2 = c0 + idx % kStrip;
+    const int e = j2 * k1;  // < n
+    const float2 w = cmul(hi[e >> shift], lo[e & (n1 - 1)]);
+    yc[(size_t)k1 * n2 + j2] = cmul(buf[idx], w);
+  }
+}
+
+// Pass 2.  Grid (n1 / S blocks of S / 2 rows and their partners, packed
+// rows) -> out (rows, n/2 + 1).  The output's runs of consecutive bins are
+// S / 2 long: S = 64 or 32 where the strip fits in shared memory and the
+// batch fills the card, else 16 (``cuda_fft.fft_real_rows_strip``).
+template <int S>
+__global__ void __launch_bounds__(1024)
+fft_real_rows(const float2* __restrict__ y, int rows, int n1, int n2,
+              const float2* __restrict__ tw, float2* __restrict__ out) {
+  using palt::kElems;
+  constexpr int kPairs = S / 2;
+  float2* stw = palt::fft_shared();
+  float2* buf = stw + (n2 >> 1);
+  const int ld = n2 + 1;  // odd sequence stride: conflict-free columns
+  const int n = n1 * n2;
+  const int c = blockIdx.y;
+  const int b = blockIdx.x;
+  palt::stage_twiddles(stw, tw, n2, n1);
+  const float2* yc = y + (size_t)c * n;
+  const int total = S * n2;
+  const int shift = __ffs(n2) - 1;
+  float2 v[kElems];
+#pragma unroll
+  for (int u = 0; u < kElems; ++u) {
+    const int idx = threadIdx.x + u * blockDim.x;
+    const size_t row = pair_row(b, idx >> shift, n1, kPairs);
+    v[u] = idx < total ? yc[row * n2 + (idx & (n2 - 1))]
+                       : make_float2(0.0f, 0.0f);
+  }
+#pragma unroll
+  for (int u = 0; u < kElems; ++u) {
+    const int idx = threadIdx.x + u * blockDim.x;
+    if (idx < total) buf[(idx >> shift) * ld + (idx & (n2 - 1))] = v[u];
+  }
+  palt::block_fft<S>(buf, 1, ld, n2, stw, 1.0f);
+  const int bins = (n >> 1) + 1;
+  const int h2 = n2 >> 1;
+  const bool two = 2 * c + 1 < rows;
+  float2* oa = out + (size_t)(2 * c) * bins;
+  for (int idx = threadIdx.x; idx < S * (h2 + 1); idx += blockDim.x) {
+    const int r = idx % S;
+    const int k2 = idx / S;
+    const int row = pair_row(b, r, n1, kPairs);
+    if (k2 == h2 && row != 0) continue;  // bin n/2 is row 0's alone
+    int pr = r;  // rows 0 and n1/2 are their own partners
+    int pk = n2 - 1 - k2;
+    if (row == 0)
+      pk = (n2 - k2) & (n2 - 1);
+    else if (row != n1 / 2)
+      pr = r < kPairs ? r + kPairs : r - kPairs;
+    const float2 zk = buf[r * ld + k2];
+    const float2 zm = buf[pr * ld + pk];
+    const int k = row + n1 * k2;
+    oa[k] = split_bin(zk, zm, 0);
+    if (two) oa[bins + k] = split_bin(zk, zm, 1);
+  }
+}
+
+// Pass 2 with S = s2 (16, 32 or 64).
+int fft_real_rows_launch(const float2* y, int rows, int n1, int n2, int s2,
+                         const float2* tw, float2* out, cudaStream_t s) {
+  const int packed = (rows + 1) / 2;
+  const int smem = (n2 / 2 + s2 * (n2 + 1)) * (int)sizeof(float2);
+  const dim3 grid(n1 / s2, packed);
+  const int threads = palt::fft_threads(n2, s2);
+  cudaError_t err;
+  if (s2 == 64) {
+    err = palt::allow_smem<fft_real_rows<64>>();
+    if (err == cudaSuccess)
+      fft_real_rows<64><<<grid, threads, smem, s>>>(y, rows, n1, n2, tw, out);
+  } else if (s2 == 32) {
+    err = palt::allow_smem<fft_real_rows<32>>();
+    if (err == cudaSuccess)
+      fft_real_rows<32><<<grid, threads, smem, s>>>(y, rows, n1, n2, tw, out);
+  } else if (s2 == 16) {
+    err = palt::allow_smem<fft_real_rows<16>>();
+    if (err == cudaSuccess)
+      fft_real_rows<16><<<grid, threads, smem, s>>>(y, rows, n1, n2, tw, out);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 // ---- K1 / K2: PHAT cross-spectra, two pairs per packed row ---------------
@@ -621,19 +804,34 @@ void boot_stage(const float2* s1, int rows, int n, float eps, int done,
 
 extern "C" {
 
-// K4a: x (rows, len) -> out (rows, n/2+1) complex, natural order.
-int palt_fft_real(const float* x, int rows, int len, int n, const float2* tw,
-                  float2* buf0, float2* buf1, float2* out, void* stream) {
+// K4a: x (rows, len) -> out (rows, n/2+1) complex, natural order.  n1 = 1:
+// one block per packed row (n <= 4096); else the two passes of the
+// four-step split n = n1 * n2 through buf (ceil(rows/2), n) complex, pass
+// 2 with strips of s2 (16, 32 or 64) rows.
+int palt_fft_real(const float* x, int rows, int len, int n, int n1, int s2,
+                  const float2* tw, float2* buf, float2* out, void* stream) {
+  using palt::fft_threads;
+  using palt::kStrip;
   cudaStream_t s = (cudaStream_t)stream;
   const int packed = (rows + 1) / 2;
-  pack_rows<<<dim3(palt::pass_blocks(n), packed), kThreads, 0, s>>>(
-      x, rows, len, len, n, buf0);
+  if (n1 == 1) {
+    const int smem = (n / 2 + n) * (int)sizeof(float2);
+    const cudaError_t err = palt::allow_smem<fft_real_block>();
+    if (err != cudaSuccess) return (int)err;
+    fft_real_block<<<packed, fft_threads(n, 1), smem, s>>>(x, rows, len, n,
+                                                           tw, out);
+    PALT_CHECK();
+    return 0;
+  }
+  const int n2 = n / n1;
+  const int smem1 =
+      (n1 / 2 + n1 + n2 + n1 * kStrip) * (int)sizeof(float2);
+  const cudaError_t err = palt::allow_smem<fft_real_cols>();
+  if (err != cudaSuccess) return (int)err;
+  fft_real_cols<<<dim3(n2 / kStrip, packed), fft_threads(n1, kStrip), smem1,
+                  s>>>(x, rows, len, n1, n2, tw, buf);
   PALT_CHECK();
-  float2* spec = fft_rows(buf0, buf1, tw, n, packed, 0, log2_int(n), s);
-  PALT_CHECK();
-  unpack_half<<<dim3(bin_blocks(n), rows), kThreads, 0, s>>>(spec, n, out);
-  PALT_CHECK();
-  return 0;
+  return fft_real_rows_launch(buf, rows, n1, n2, s2, tw, out, s);
 }
 
 // K1: x (scenes, mics, len) -> out (scenes, num_pairs, n) PHAT

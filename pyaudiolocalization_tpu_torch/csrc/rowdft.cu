@@ -1,6 +1,6 @@
 // K10: the four-step row DFT of (B, n2, 128) float32 planes on the tensor
-// cores, the radix-2 passes it is measured against, and the 128-point lane
-// DFT (sm_90a).  Included from kernels.cu (after its helpers); bound by
+// cores, the butterfly stages it is measured against, and the 128-point
+// lane DFT (sm_90a).  Included from kernels.cu (after its helpers); bound by
 // ops/rowdft.py.
 //
 // A length-N row (N = n2 * 128) is held as a plane x2d[q, p] = x[q*128 + p]
@@ -32,11 +32,13 @@
 //   matrices from L2.  G = 8 (n2 = 64) pads M to one 16-row tile.
 //
 // K10b palt_row_stages replaces `_stages_kernel` (:170, `_dif_stages`
-//   pallas_fft.py:336): the same row DFT by radix-2 Stockham passes along
-//   the rows, the scheme of fft.cuh's `stockham_pass` with the 128 lanes
-//   contiguous (coalesced).  Natural order.  Bound: every pass reads and
-//   writes the plane through device memory (16 bytes a point a pass,
-//   log2(n2) passes) -- the schedule the port's production kernels use.
+//   pallas_fft.py:336): the same row DFT by butterfly stages, all of them
+//   on chip: one block loads a strip of n2 rows x kStrip lanes (each row's
+//   kStrip lanes contiguous), runs fft.cuh's `block_fft` (radix-16
+//   Stockham stages in registers, shared-memory exchanges between them)
+//   and writes the strip in natural order, one launch per transform.
+//   Bound: one read and one write of the plane (16 bytes a point), as
+//   K10a.
 //
 // K10c palt_lane_dft replaces `_lane_kernel` (:317, `_lane_dft`
 //   pallas_fft.py:619) and the twiddle / whitening / layout glue of
@@ -281,50 +283,52 @@ __global__ void row_dft_kernel(const float* __restrict__ xr,
   }
 }
 
-// K10b: one radix-2 Stockham pass along the rows (p = length of the
-// sub-transforms done), rows of 128 contiguous lanes.  blockIdx.y = plane.
-// Rows >= rows_in read as zero (zero_top); xi may be null (real input).
-__global__ void row_stage_pass(const float* __restrict__ xr,
-                               const float* __restrict__ xi, int rows_in,
-                               float scale, const float2* __restrict__ tw,
-                               int n2, int p, int inverse,
-                               float* __restrict__ out_r,
-                               float* __restrict__ out_i, int mode) {
-  const int half = n2 >> 1;
-  const int stride = half / p;
+// K10b: the whole length-n2 transform of a strip of kStrip lanes in one
+// block (fft.cuh's block_fft over the strip, lanes as its sequences).
+// Grid (128 / kStrip strips, planes).  Rows >= rows_in read as zero
+// (zero_top); xi may be null (real input); the input is scaled on load.
+// In and out may be the same planes (each block reads its whole strip
+// before it writes).
+__global__ void __launch_bounds__(1024)
+row_fft_kernel(const float* xr, const float* xi, int n2, int rows_in,
+               float scale, int inverse, const float2* __restrict__ tw,
+               float* out_r, float* out_i, int mode) {
+  using palt::kStrip;
+  float2* stw = palt::fft_shared();
+  float2* buf = stw + (n2 >> 1);
+  const int lane0 = blockIdx.x * kStrip;
   const size_t plane = blockIdx.y;
-  const float* pr = xr + plane * (size_t)rows_in * kLanes;
-  const float* pi = xi ? xi + plane * (size_t)rows_in * kLanes : nullptr;
-  const size_t out_off = plane * (size_t)n2 * kLanes;
-  for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < half * kLanes;
-       idx += gridDim.x * blockDim.x) {
-    const int i = idx >> 7;
-    const int l = idx & (kLanes - 1);
-    const int k = i & (p - 1);
-    float2 w = tw[k * stride];  // exp(-i*pi*k/p)
-    if (inverse) w.y = -w.y;
-    const size_t ia = (size_t)i * kLanes + l;
-    const size_t ib = (size_t)(i + half) * kLanes + l;
-    const float2 a = make_float2(pr[ia] * scale, pi ? pi[ia] * scale : 0.0f);
-    float2 b = make_float2(0.0f, 0.0f);
-    if (i + half < rows_in)
-      b = make_float2(pr[ib] * scale, pi ? pi[ib] * scale : 0.0f);
-    b = cmul(b, w);
-    const int j = 2 * i - k;
-    const size_t o0 = out_off + (size_t)j * kLanes + l;
-    const size_t o1 = out_off + (size_t)(j + p) * kLanes + l;
-    const float2 y0 = make_float2(a.x + b.x, a.y + b.y);
-    const float2 y1 = make_float2(a.x - b.x, a.y - b.y);
+  const size_t in_off = plane * (size_t)rows_in * kLanes + lane0;
+  const float* pr = xr + in_off;
+  const float* pi = xi ? xi + in_off : nullptr;
+  palt::stage_twiddles(stw, tw, n2, 1);
+  // Every load of the thread in flight before the first store.
+  const int total = n2 * kStrip;
+  float2 v[palt::kElems];
+#pragma unroll
+  for (int u = 0; u < palt::kElems; ++u) {
+    const int idx = threadIdx.x + u * blockDim.x;
+    const int j = idx / kStrip;
+    const size_t off = (size_t)j * kLanes + idx % kStrip;
+    v[u] = make_float2(0.0f, 0.0f);
+    if (idx < total && j < rows_in)
+      v[u] = make_float2(pr[off] * scale, pi ? pi[off] * scale : 0.0f);
+  }
+#pragma unroll
+  for (int u = 0; u < palt::kElems; ++u) {
+    const int idx = threadIdx.x + u * blockDim.x;
+    if (idx < total) buf[idx] = v[u];
+  }
+  palt::block_fft<kStrip>(buf, kStrip, 1, n2, stw, inverse ? -1.0f : 1.0f);
+  const size_t out_off = plane * (size_t)n2 * kLanes + lane0;
+  for (int idx = threadIdx.x; idx < n2 * kStrip; idx += blockDim.x) {
+    const size_t o = out_off + (size_t)(idx / kStrip) * kLanes + idx % kStrip;
+    const float2 v = buf[idx];
     if (mode == kAddReal) {
-      out_r[o0] += y0.x;
-      out_r[o1] += y1.x;
+      out_r[o] += v.x;
     } else {
-      out_r[o0] = y0.x;
-      out_r[o1] = y1.x;
-      if (mode == kStoreComplex) {
-        out_i[o0] = y0.y;
-        out_i[o1] = y1.y;
-      }
+      out_r[o] = v.x;
+      if (mode == kStoreComplex) out_i[o] = v.y;
     }
   }
 }
@@ -516,39 +520,34 @@ int palt_row_dft(const float* xr, const float* xi, int planes, int n2,
   return 0;
 }
 
-// K10b: the same function as palt_row_dft by log2(n2) Stockham passes per
-// transform, ping-ponging through s0/s1 (always needed); tw is the
-// (n2/2, 2) table exp(-2*pi*i*m/n2).
+// K10b: the same function as palt_row_dft, one launch per transform (the
+// on-chip sub-transform of fft.cuh); tw is the (n2/2, 2) table
+// exp(-2*pi*i*m/n2).  s0r/s0i are (planes, n2, 128) scratch planes for
+// rep > 1 (the transforms between the first and the last run in place).
 int palt_row_stages(const float* xr, const float* xi, int planes, int n2,
                     int rows_in, int inverse, int rep, float scale,
-                    const float2* tw, float* s0r, float* s0i, float* s1r,
-                    float* s1i, float* out_r, float* out_i, int mode,
-                    void* stream) {
+                    const float2* tw, float* s0r, float* s0i, float* out_r,
+                    float* out_i, int mode, void* stream) {
+  using palt::kStrip;
   cudaStream_t s = (cudaStream_t)stream;
-  const int passes = log2_int(n2);
-  const int total = passes * rep;
-  int blocks = ((n2 >> 1) * kLanes + kThreads - 1) / kThreads;
-  if (blocks > 1024) blocks = 1024;
-  float* sr[2] = {s0r, s1r};
-  float* si[2] = {s0i, s1i};
+  const int smem = (n2 / 2 + n2 * kStrip) * (int)sizeof(float2);
+  const cudaError_t err = palt::allow_smem<row_fft_kernel>();
+  if (err != cudaSuccess) return (int)err;
   const float* src_r = xr;
   const float* src_i = xi;
   int rows = rows_in;
-  int j = 0;
   for (int it = 0; it < rep; ++it) {
-    for (int pass = 0, p = 1; pass < passes; ++pass, p <<= 1, ++j) {
-      const bool last = j == total - 1;
-      float* dr = last ? out_r : sr[j & 1];
-      float* di = last ? out_i : si[j & 1];
-      const float sc = pass ? 1.0f : (it ? 1e-3f : scale);
-      row_stage_pass<<<dim3(blocks, planes), kThreads, 0, s>>>(
-          src_r, src_i, rows, sc, tw, n2, p, inverse, dr, di,
-          last ? mode : kStoreComplex);
-      PALT_CHECK();
-      src_r = dr;
-      src_i = di;
-      rows = n2;
-    }
+    const bool last = it == rep - 1;
+    float* dr = last ? out_r : s0r;
+    float* di = last ? out_i : s0i;
+    row_fft_kernel<<<dim3(kLanes / kStrip, planes),
+                     palt::fft_threads(n2, kStrip), smem, s>>>(
+        src_r, src_i, n2, rows, it ? 1e-3f : scale, inverse, tw, dr, di,
+        last ? mode : kStoreComplex);
+    PALT_CHECK();
+    src_r = dr;
+    src_i = di;
+    rows = n2;
   }
   return 0;
 }

@@ -7,7 +7,7 @@ for K7):
 ===================== ====================================== ==================
 wrapper               replaces                               bound on an H100
 ===================== ====================================== ==================
-fft_real              bfly_fft_real (:685)                   memory: FFT passes
+fft_real              bfly_fft_real (:685)                   memory: 2 launches
 whitened_corr         bfly_whitened_corr (:707)              memory: FFT passes
 gcc_all_pairs         bfly_gcc_all_pairs (:922)              memory: FFT passes
 gcc_windowed          bfly_gcc_windowed (:1095)              memory: FFT passes
@@ -23,20 +23,25 @@ The three kernels of K10, the TPU package's A/B tool of FFT schedules
 (``row_dft``, ``row_stages``, ``lane_dft``) and built into the same
 library from ``csrc/rowdft.cu``; their launches count here too.
 
-All but ``whiten`` are built from one FFT (``csrc/fft.cuh``): radix-2
-Stockham passes over rows in device memory, 16 bytes moved per point per
-pass, so every such kernel is bound by device-memory (and L2) bandwidth
-at about 16·log2(nfft) bytes per point and transform.  The design keeps
-the rest of the work out of device memory where the TPU kernels did: real
-rows are packed two to a complex transform, the whitening / ramp
-synthesis runs in one pass over the spectra, two real results share each
-inverse, and the bootstrap's maxima and the windowed GCC's lag window and
-statistics are taken inside the last inverse pass instead of writing the
-correlation.  The TPU kernels' bit-reversed (N2, 128) plane layout is not
-carried over: spectra are in natural order.  The all-pairs GCC, render,
-windowed-GCC and scene kernels take a leading scene axis; every launch
-covers all scenes (the all-pairs GCC splits a batch beyond its grid limit
-into scene chunks).
+All but ``whiten`` are built on one FFT (``csrc/fft.cuh``) in two
+schedules.  ``fft_real`` (and K10's ``row_stages``) run on-chip
+sub-transforms: a block holds a strip of sequences in shared memory for
+all of its radix-16 stages, and a long row is a four-step split of two
+such launches (``fft_real_split``), so a transform reads and writes each
+point once per launch (16 bytes a complex point) and is bound by device
+memory at that.  The others run radix-2 Stockham passes over rows in
+device memory, one launch and 16 bytes a point per pass, about
+16·log2(nfft) bytes per point and transform; they fuse their first or last
+pass into a prologue or epilogue.  The design keeps the rest of the work out of device memory where
+the TPU kernels did: real rows are packed two to a complex transform, the
+whitening / ramp synthesis runs in one pass over the spectra, two real
+results share each inverse, and the bootstrap's maxima and the windowed
+GCC's lag window and statistics are taken inside the last inverse pass
+instead of writing the correlation.  The TPU kernels' bit-reversed (N2,
+128) plane layout is not carried over: spectra are in natural order.  The
+all-pairs GCC, render, windowed-GCC and scene kernels take a leading scene
+axis; every launch covers all scenes (the all-pairs GCC splits a batch
+beyond its grid limit into scene chunks).
 Measurement noise and the noise-null bootstrap's rows come from a
 counter-based Philox generator (``csrc/philox.cuh``, twin
 ``ops/noise.py``) in place of the TPU core's random bits.
@@ -68,6 +73,10 @@ from . import noise as noise_ops
 from . import signal as sig_ops
 
 PHAT_EPS = 1e-10
+# K4a: one block holds the packed row up to this length; the four-step
+# split of two on-chip transforms reaches 1024 x 1024.
+FFT_REAL_ONE_BLOCK = 4096
+FFT_REAL_MAX = 1 << 20
 
 #: Kernel launches per wrapper since the last ``reset_launches()``.
 LAUNCHES: Dict[str, int] = {"fft_real": 0, "gcc_all_pairs": 0,
@@ -142,7 +151,7 @@ def _library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_library_path()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         signatures = {
-            "palt_fft_real": [p, i, i, i, p, p, p, p, p],
+            "palt_fft_real": [p, i, i, i, i, i, p, p, p, p],
             "palt_noise_bootstrap_peaks": [p, p, i, i, i, f, p, p, p, p, p],
             "palt_whiten": [p, ctypes.c_longlong, f, p, p],
             "palt_whitened_corr": [p, p, i, i, p, f, p, p, p, p, p],
@@ -158,8 +167,8 @@ def _library() -> ctypes.CDLL:
                                     p],
             "palt_row_dft": [p, p, i, i, i, i, i, f, p, p, p, p, p, p, p, i,
                              i, p],
-            "palt_row_stages": [p, p, i, i, i, i, i, f, p, p, p, p, p, p, p,
-                                i, p],
+            "palt_row_stages": [p, p, i, i, i, i, i, f, p, p, p, p, p, i,
+                                p],
             "palt_lane_dft": [p, p, p, p, i, i, f, i, p, p, p, p, p, p,
                               i, p],
         }
@@ -245,19 +254,50 @@ def fft_real_plain(x: torch.Tensor, nfft: int) -> torch.Tensor:
     return torch.fft.rfft(x, n=nfft)
 
 
+def fft_real_split(nfft: int):
+    """(n1, n2) of K4a's four-step split nfft = n1 * n2: (1, nfft) up to
+    ``FFT_REAL_ONE_BLOCK`` (one block holds the packed row), else n2 =
+    2^floor(log2(nfft) / 2) and n1 = nfft / n2 >= n2, both at most 1024
+    (one block's strip, ``block_fft``)."""
+    if nfft <= FFT_REAL_ONE_BLOCK:
+        return 1, nfft
+    n2 = 1 << ((nfft.bit_length() - 1) // 2)
+    return nfft // n2, n2
+
+
+def fft_real_rows_strip(n2: int, packed: int) -> int:
+    """Rows a block of K4a's second pass holds, half of them the partners
+    n1 - k1 of the other half; its output runs of consecutive bins are half
+    as long.  64 (n2 <= 256) or 32 (n2 <= 512), the most one block's shared
+    memory holds, where there are enough packed rows (>= 64) that fewer
+    blocks still fill the card; else 16 (a single row's call is bound by
+    latency, not bytes)."""
+    if packed < 64 or n2 > 512:
+        return 16
+    return 64 if n2 <= 256 else 32
+
+
 def fft_real(x: torch.Tensor, nfft: int) -> torch.Tensor:
     """(B, len <= nfft) real rows -> (B, nfft//2 + 1) complex spectra in
-    natural order (zero-padded to nfft).
+    natural order (zero-padded to nfft), nfft <= 2^20.
 
     Replaces ``bfly_fft_real`` (pyaudiolocalization_tpu/ops/pallas_fft.py:
     685), whose output is an opaque bit-reversed (N2, 128) plane layout.
-    Bound by the FFT passes' device-memory traffic; two rows share each
-    complex transform."""
+    Two rows share each complex transform, a four-step split
+    (``fft_real_split``) of two on-chip launches (one up to nfft = 4096):
+    the columns' DFTs with the twiddle, then the rows' DFTs with the two
+    real spectra split in the epilogue.  Bound by device memory: the
+    rows' read, one write and one read of the packed intermediate, the
+    spectra's write."""
     if _use_plain(x):
         return fft_real_plain(x, nfft)
     _check_contiguous("fft_real", x)
     _check_f32("fft_real", x)
     _check_pow2(nfft)
+    if nfft > FFT_REAL_MAX:
+        raise ValueError(f"fft_real: nfft must be at most {FFT_REAL_MAX} "
+                         f"(1024 x 1024, the largest four-step split of two "
+                         f"on-chip transforms), got {nfft}")
     rows, length = x.shape
     if length > nfft or rows > _MAX_GRID_Y:
         raise ValueError(f"fft_real: unsupported shape {tuple(x.shape)} at "
@@ -266,14 +306,16 @@ def fft_real(x: torch.Tensor, nfft: int) -> torch.Tensor:
     dev = x.device
     out = torch.empty((rows, nfft // 2 + 1), dtype=torch.complex64,
                       device=dev)
-    bufs = [_scratch((rows + 1) // 2, nfft, dev) for _ in range(2)]
+    n1, n2 = fft_real_split(nfft)
+    buf = _scratch((rows + 1) // 2, nfft, dev) if n1 > 1 else None
     tw = _twiddles(nfft, str(dev))
     with torch.cuda.device(dev):
         LAUNCHES["fft_real"] += 1
-        err = lib.palt_fft_real(x.data_ptr(), rows, length, nfft,
-                                tw.data_ptr(), bufs[0].data_ptr(),
-                                bufs[1].data_ptr(), out.data_ptr(),
-                                _stream(dev))
+        err = lib.palt_fft_real(x.data_ptr(), rows, length, nfft, n1,
+                                fft_real_rows_strip(n2, (rows + 1) // 2),
+                                tw.data_ptr(),
+                                None if buf is None else buf.data_ptr(),
+                                out.data_ptr(), _stream(dev))
     _raise_on("fft_real", err)
     return out
 

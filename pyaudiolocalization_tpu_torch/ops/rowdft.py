@@ -1,4 +1,4 @@
-"""K10: the four-step row DFT on the tensor cores against radix-2 passes.
+"""K10: the four-step row DFT on the tensor cores against butterfly stages.
 
 The TPU package's A/B tool of FFT schedules (``tools/mxu_rowdft_bench.py``,
 ``_call`` :328) splits a length-N row, N = n2 * 128, into a plane
@@ -17,7 +17,8 @@ wrapper           replaces (tools/mxu_rowdft_bench.py)  bound on an H100
 ================= ===================================== ====================
 ``row_dft``       ``_rowdft_kernel`` / ``_rowinv_kernel`` plane read + write
                   (:181, :192)                          (tensor cores, TF32)
-``row_stages``    ``_stages_kernel`` (:170)             16 B a point a pass
+``row_stages``    ``_stages_kernel`` (:170)             plane read + write
+                                                        (on-chip stages)
 ``lane_dft``      ``_lane_kernel`` (:317) and the       plane read + write
                   forward / chain glue (:198-314)       (tensor cores, TF32)
 ================= ===================================== ====================
@@ -239,8 +240,11 @@ def _row_launch(kind: str, xr, xi, n2: int, inverse: bool, rep: int,
     out_i = (torch.empty(shape, dtype=torch.float32, device=dev)
              if mode == 0 else None)
     stages = kind == "row_stages"
+    # Planes between chained transforms: K10b runs them in place in one
+    # pair, K10a ping-pongs between two.
+    count = 2 if stages else 4
     scratch = ([torch.empty(shape, dtype=torch.float32, device=dev)
-                for _ in range(4)] if stages or rep > 1 else [None] * 4)
+                for _ in range(count)] if rep > 1 else [None] * count)
     with torch.cuda.device(dev):
         cf.LAUNCHES[kind] += 1
         if stages:
@@ -315,8 +319,10 @@ def row_dft(xr: torch.Tensor, xi: Optional[torch.Tensor] = None,
 def row_stages(xr: torch.Tensor, xi: Optional[torch.Tensor] = None,
                inverse: bool = False, rep: int = 1,
                zero_top: bool = False) -> Planes:
-    """``row_dft_plain`` by log2(n2) radix-2 Stockham passes through device
-    memory (K10b ``palt_row_stages``)."""
+    """``row_dft_plain`` by butterfly stages on chip (K10b
+    ``palt_row_stages``): one launch per transform, each block holding a
+    strip of n2 rows x 16 lanes in shared memory for all of its radix-16
+    Stockham stages."""
     n2 = _n2(xr, zero_top)
     _check("row_stages", n2, xr, xi)
     if cf._use_plain(*[t for t in (xr, xi) if t is not None]):

@@ -15,6 +15,7 @@ log/cos/sqrt within a few units in the last place) times sigma <= 0.1.
 """
 
 import copy
+import json
 
 import numpy as np
 import pytest
@@ -67,15 +68,65 @@ def test_gcc_all_pairs_kernel_matches_plain(cuda, m, length, nfft):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,length,nfft", [(1, 3000, 4096), (3, 4096, 4096),
-                                              (1000, 44100, 65536)])
+@pytest.mark.parametrize("rows,length,nfft", [
+    (1, 3000, 4096), (3, 4096, 4096), (1000, 44100, 65536),
+    (1, 44100, 131072), (2, 44100, 65536), (5, 100, 128), (1, 3, 4),
+    (3, 600000, 1 << 20)])
 def test_fft_real_kernel_matches_plain(cuda, rows, length, nfft):
+    """One block (nfft <= 4096) and the four-step split up to 1024 x 1024;
+    odd row counts leave the last packed row's second half zero."""
     x = torch.randn((rows, length), generator=_gen(cuda), device=cuda)
     got = cf.fft_real(x, nfft)
     want = cf.fft_real_plain(x, nfft)
     torch.cuda.synchronize()
     assert got.dtype == torch.complex64 and got.shape == want.shape
     assert float((got - want).abs().max()) < 5e-6 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_fft_real_raises_above_its_largest_length(cuda):
+    x = torch.randn((1, 1000), generator=_gen(cuda), device=cuda)
+    assert cf.fft_real(x, cf.FFT_REAL_MAX).shape == (1, cf.FFT_REAL_MAX // 2
+                                                     + 1)
+    with pytest.raises(ValueError, match="at most 1048576"):
+        cf.fft_real(x, 2 * cf.FFT_REAL_MAX)
+
+
+def _device_kernels(fn, path):
+    """Names of the device kernels that one warm call of ``fn`` runs, from
+    a ``torch.profiler`` trace of CUDA activity."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):  # a process's first trace may miss kernels
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    return [e["name"] for e in events if e.get("cat") == "kernel"]
+
+
+@pytest.mark.cuda
+def test_device_kernels_per_call(cuda, tmp_path):
+    """The design, not just the answer: K4a runs two kernels at 65,536 (the
+    four-step passes) and one at 4,096; K10b one kernel per transform."""
+    from pyaudiolocalization_tpu_torch.ops import rowdft as rd
+    x = torch.randn((2, 44100), generator=_gen(cuda), device=cuda)
+    names = _device_kernels(lambda: cf.fft_real(x, 65536),
+                            tmp_path / "k4a.json")
+    assert len(names) == 2, names
+    assert "fft_real_cols" in names[0] and "fft_real_rows" in names[1]
+    short = x[:, :4000].contiguous()
+    names = _device_kernels(lambda: cf.fft_real(short, 4096),
+                            tmp_path / "small.json")
+    assert len(names) == 1 and "fft_real_block" in names[0], names
+    xr, xi = _planes(cuda, 8, 512)
+    for rep in (1, 3):
+        names = _device_kernels(lambda: rd.row_stages(xr, xi, rep=rep),
+                                tmp_path / f"k10b_{rep}.json")
+        assert len(names) == rep, names
+        assert all("row_fft_kernel" in n for n in names), names
 
 
 @pytest.mark.cuda
