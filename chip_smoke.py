@@ -11,7 +11,10 @@ Drives the port's main paths on ``cuda`` at full width (4 mics, 44.1 kHz,
    turns, the least time the card could take (``bound_ms``) and, where one
    PyTorch call computes the same function, that call's time (K4a also
    at no_gate's 131,072, the single pair's two rows and 1024 rows against
-   ``torch.fft.rfft``, with device times; K4b also at no_gate's 131,072);
+   ``torch.fft.rfft``, with device times; K4b also at no_gate's 131,072
+   and two rows, with its device time and kernels per call; K7 also on a
+   view that starts one bin in, with its device time and
+   ``torch.sgn``'s);
    for K10's three kernels (``ops/rowdft.py``) the cases phase 7 does not
    run: the
    inverse, rep = 8 and zero_top at n2 = 64 and 1024, the lane DFT's
@@ -334,7 +337,8 @@ def kernel_phase(cf, torch):
     # and an edge of one block; torch.fft.rfft is the library call.  The
     # device time per call (torch.profiler) is logged beside the CUDA-event
     # time, which a single row's host time between calls dominates.
-    device_ms = _load_tool("torch_rowdft_bench").device_ms
+    bench = _load_tool("torch_rowdft_bench")
+    device_ms = bench.device_ms
     for tag, (rows_n, length, nfft) in {
             "main": (1, N, NFFT), "no_gate": (1, N, 2 * NFFT),
             "single_pair": (2, N, NFFT), "rows": (1024, NFFT, NFFT),
@@ -357,9 +361,13 @@ def kernel_phase(cf, torch):
             results["fft_real"] = res
 
     # K4b: bootstrap null at 1000 permuted rows, at the main path's 65,536
-    # and no_gate's 131,072 (edge: 999 rows).
+    # and no_gate's 131,072 (three launches over the four-step split);
+    # edges: two rows (16-row strips) and 999 rows at 4,096 (one block).
+    # The device time per call and the device kernels a call runs
+    # (torch.profiler) are logged beside the CUDA-event time.
     for tag, (rows_n, length, nfft) in {"main": (1000, N, NFFT),
                                         "no_gate": (1000, N, 2 * NFFT),
+                                        "two": (2, N, NFFT),
                                         "edge": (999, 3000, 4096)}.items():
         sig2 = randn(length)
         keys = rand(rows_n, length)
@@ -372,6 +380,10 @@ def kernel_phase(cf, torch):
             tol=1e-6, reps=3,
             least=bound(8 * (nfft // 2 + 1) + 4 * rows_n * (length + 1),
                         rows_n * (2 * _rfft_ops(nfft) + (nfft // 2) * 15)))
+        dev_k = device_ms(lambda: cf.bootstrap_peaks(s1, rows, nfft), 5)
+        log(f"bootstrap_peaks[{tag}] device time per call: "
+            f"{dev_k['total']:.4f} ms in {dev_k['kernels']:g} kernels "
+            f"({bench._split(dev_k)})")
         if tag == "main":
             results["bootstrap_peaks"] = res
 
@@ -396,16 +408,26 @@ def kernel_phase(cf, torch):
             results["noise_bootstrap_peaks"] = res
 
     # K7: PHAT whitening.  Main: the single pair at the exact length 88,199
-    # (44,100 bins); edge: three odd rows.  16 bytes a bin.
-    for tag, shape in {"main": (1, N), "edge": (3, 1025)}.items():
+    # (44,100 bins); edges: three odd rows, and 44,100 bins that start
+    # between two 16-byte words (a view one bin in).  16 bytes a bin.  The
+    # device times per call of K7 and torch.sgn are logged beside the
+    # CUDA-event times, which the host's time between calls dominates.
+    for tag, shape in {"main": (1, N), "edge": (3, 1025),
+                       "misaligned": (1, N + 1)}.items():
         spec = torch.complex(randn(*shape), randn(*shape)).contiguous()
+        if tag == "misaligned":
+            spec = spec[..., 1:]
         bins = spec.numel()
         res = compare(
-            f"whiten[{tag}] shape={shape}",
+            f"whiten[{tag}] shape={tuple(spec.shape)}",
             lambda: cf.whiten(spec), lambda: cf.whiten_plain(spec),
             tol=1e-6, reps=20, scale_by_max=True,
             least=bound(16 * bins, 6 * bins),
             library_fn=lambda: torch.sgn(spec))
+        log(f"whiten[{tag}] device time per call: kernel "
+            f"{device_ms(lambda: cf.whiten(spec), 50)['total']:.4f} ms, "
+            f"torch.sgn "
+            f"{device_ms(lambda: torch.sgn(spec), 50)['total']:.4f} ms")
         if tag == "main":
             results["whiten"] = res
 

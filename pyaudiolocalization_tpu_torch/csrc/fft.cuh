@@ -11,8 +11,9 @@
 //    shared memory a block can hold, so every pass streams the rows
 //    through device memory (and the 50 MB L2): 16 bytes per point per
 //    pass, about 16 * log2(n) bytes per point and transform, and one
-//    launch per pass.  K1, K2, K3, K4b, K5, K6 and K9 run on it; they
-//    fuse their first or last pass into a prologue or epilogue.
+//    launch per pass.  K1, K2, K3, K5, K6 and K9 (and K4b above 2^20)
+//    run on it; they fuse their first or last pass into a prologue or
+//    epilogue.
 //
 // 2. On-chip sub-transforms (`block_fft`): one block transforms S
 //    sequences of length L (L * S <= kElems * 1024) held in shared memory,
@@ -25,9 +26,10 @@
 //    caller loads the strip with coalesced reads and hands the result to
 //    its own epilogue, so a launch moves 16 bytes per complex point (8 in,
 //    8 out), not 16 per point per pass.  A longer row is a four-step
-//    product n = n1 * n2 of two such launches (K4a); the length-n2 rows of
-//    a (n2, 128) plane are one (K10b).  Bound: device memory, one read
-//    and one write per launch.
+//    product n = n1 * n2 of two such launches (K4a; K4b runs it forward
+//    and back in three, the middle one holding the rows for both
+//    directions); the length-n2 rows of a (n2, 128) plane are one (K10b).
+//    Bound: device memory, one read and one write per launch.
 #pragma once
 
 #include <cuda_runtime.h>

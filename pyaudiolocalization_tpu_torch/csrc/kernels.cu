@@ -22,6 +22,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "fft.cuh"
 #include "philox.cuh"
 
@@ -168,6 +170,32 @@ inline int bin_blocks(int n) {
   return blocks < 1024 ? blocks : 1024;
 }
 
+// The device's SM count, read once per device (the query costs host time
+// that a launch-bound kernel would pay on every call).
+inline int sm_count() {
+  static int count[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
+  if (dev < 64 && count[dev] > 0) return count[dev];
+  int sms = 1;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess ||
+      sms < 1)
+    sms = 1;
+  if (dev < 64) count[dev] = sms;
+  return sms;
+}
+
+// Calls launch(std::integral_constant<int, S>()) for K4a's pass-2 strip
+// width s2 = S of 16, 32 or 64 rows (a template argument of the kernel).
+template <typename Launch>
+cudaError_t with_strip(int s2, Launch launch) {
+  if (s2 == 64) return launch(std::integral_constant<int, 64>());
+  if (s2 == 32) return launch(std::integral_constant<int, 32>());
+  if (s2 == 16) return launch(std::integral_constant<int, 16>());
+  return cudaErrorInvalidValue;
+}
+
 // ---- K4a: forward spectrum of real rows, natural order -------------------
 //
 // Real rows 2c and 2c+1 are packed as z = a + i*b while loading.  With
@@ -226,17 +254,34 @@ fft_real_block(const float* __restrict__ x, int rows, int len, int n,
   }
 }
 
+// The split's twiddle W_n^e, e = j2*k1 < n, is W_n2^{e / n1} * W_n^{e mod
+// n1}: lo[r] = W_n^r (r < n1) and hi[a] = W_n2^a (a < n2), staged in
+// shared memory from the table.
+__device__ __forceinline__ void stage_split_tables(
+    float2* lo, float2* hi, const float2* __restrict__ tw, int n1, int n2) {
+  for (int r = threadIdx.x; r < n1; r += blockDim.x) lo[r] = tw[r];
+  for (int a = threadIdx.x; a < n2; a += blockDim.x) {
+    const float2 w = tw[(size_t)(a & ((n2 >> 1) - 1)) * n1];
+    hi[a] = a < (n2 >> 1) ? w : make_float2(-w.x, -w.y);
+  }
+}
+
+__device__ __forceinline__ float2 split_twiddle(const float2* lo,
+                                                const float2* hi, int e,
+                                                int n1) {
+  return cmul(hi[e >> (__ffs(n1) - 1)], lo[e & (n1 - 1)]);
+}
+
 // Pass 1.  Grid (n2 / kStrip column strips, packed rows).  The twiddle
-// W_n^e, e = j2*k1 < n, is W_n2^{e / n1} * W_n^{e mod n1}, both factors
-// from tables staged in shared memory (n2 and n1 entries).
+// W_n^{j2 k1} from the two tables of `stage_split_tables`.
 __global__ void __launch_bounds__(1024)
 fft_real_cols(const float* __restrict__ x, int rows, int len, int n1, int n2,
               const float2* __restrict__ tw, float2* __restrict__ y) {
   using palt::kElems;
   using palt::kStrip;
   float2* stw = palt::fft_shared();
-  float2* lo = stw + (n1 >> 1);  // W_n^r, r < n1
-  float2* hi = lo + n1;          // W_n2^a, a < n2
+  float2* lo = stw + (n1 >> 1);
+  float2* hi = lo + n1;
   float2* buf = hi + n2;
   const int n = n1 * n2;
   const int c = blockIdx.y;
@@ -245,11 +290,7 @@ fft_real_cols(const float* __restrict__ x, int rows, int len, int n1, int n2,
   const float* xa = x + (size_t)(2 * c) * len;
   const float* xb = xa + len;
   palt::stage_twiddles(stw, tw, n1, n2);
-  for (int r = threadIdx.x; r < n1; r += blockDim.x) lo[r] = tw[r];
-  for (int a = threadIdx.x; a < n2; a += blockDim.x) {
-    const float2 w = tw[(size_t)(a & ((n2 >> 1) - 1)) * n1];
-    hi[a] = a < (n2 >> 1) ? w : make_float2(-w.x, -w.y);
-  }
+  stage_split_tables(lo, hi, tw, n1, n2);
   const int total = n1 * kStrip;
   float2 v[kElems];
 #pragma unroll
@@ -265,14 +306,12 @@ fft_real_cols(const float* __restrict__ x, int rows, int len, int n1, int n2,
     if (idx < total) buf[idx] = v[u];
   }
   palt::block_fft<kStrip>(buf, kStrip, 1, n1, stw, 1.0f);
-  const int shift = __ffs(n1) - 1;
   float2* yc = y + (size_t)c * n;
   for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
     const int k1 = idx / kStrip;
     const int j2 = c0 + idx % kStrip;
-    const int e = j2 * k1;  // < n
-    const float2 w = cmul(hi[e >> shift], lo[e & (n1 - 1)]);
-    yc[(size_t)k1 * n2 + j2] = cmul(buf[idx], w);
+    yc[(size_t)k1 * n2 + j2] =
+        cmul(buf[idx], split_twiddle(lo, hi, j2 * k1, n1));
   }
 }
 
@@ -340,22 +379,13 @@ int fft_real_rows_launch(const float2* y, int rows, int n1, int n2, int s2,
   const int smem = (n2 / 2 + s2 * (n2 + 1)) * (int)sizeof(float2);
   const dim3 grid(n1 / s2, packed);
   const int threads = palt::fft_threads(n2, s2);
-  cudaError_t err;
-  if (s2 == 64) {
-    err = palt::allow_smem<fft_real_rows<64>>();
-    if (err == cudaSuccess)
-      fft_real_rows<64><<<grid, threads, smem, s>>>(y, rows, n1, n2, tw, out);
-  } else if (s2 == 32) {
-    err = palt::allow_smem<fft_real_rows<32>>();
-    if (err == cudaSuccess)
-      fft_real_rows<32><<<grid, threads, smem, s>>>(y, rows, n1, n2, tw, out);
-  } else if (s2 == 16) {
-    err = palt::allow_smem<fft_real_rows<16>>();
-    if (err == cudaSuccess)
-      fft_real_rows<16><<<grid, threads, smem, s>>>(y, rows, n1, n2, tw, out);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
+  const cudaError_t err = with_strip(s2, [&](auto strip) {
+    constexpr int S = decltype(strip)::value;
+    const cudaError_t e = palt::allow_smem<fft_real_rows<S>>();
+    if (e == cudaSuccess)
+      fft_real_rows<S><<<grid, threads, smem, s>>>(y, rows, n1, n2, tw, out);
+    return e;
+  });
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
@@ -484,8 +514,243 @@ __global__ void last_pass_window(const float2* __restrict__ in,
 }
 
 // ---- K4b: bootstrap null peaks -------------------------------------------
+//
+// Per packed row z = a + i*b (rows 2c, 2c+1): the forward transform, each
+// real row's spectrum whitened against s1 and re-packed as one Hermitian
+// pair, the inverse transform, and the maxima of its real part (row 2c)
+// and imaginary part (row 2c+1), times 1/n; the correlation is never
+// written.  With n = n1 * n2, j = n2*j1 + j2 and k = k1 + n1*k2 the
+// inverse is the forward split run backwards:
+//   x[n2 j1 + j2] = sum_k1 W_n1^{-j1 k1} W_n^{-j2 k1}
+//                   * sum_k2 W_n2^{-j2 k2} Y[k1 + n1 k2],
+// so three launches over one buffer: K4a's pass 1 (`fft_real_cols`);
+// `boot_rows`, which holds K4a's pass-2 rows k1 (with their partners n1 -
+// k1) for the forward row DFTs, the whitening, the inverse row DFTs and
+// the conjugate twiddle, written back in place; and `boot_cols`, pass 1
+// mirrored, whose inverse column DFTs end in the maxima.  A maximum does
+// not depend on where a sample lies, so the output of the inverse is never
+// put in natural order.  For n <= 4096 one block holds the packed row
+// (`boot_block`); above 2^20 (beyond `block_fft`'s 1024 x 1024) the
+// radix-2 passes of `boot_stage` run instead.  Bound: device memory, one
+// read of the rows and two reads and two writes of the packed buffer.
 
-// In place: packed row spectra -> packed whitened cross-spectra against s1.
+// In place, bins q <= n/2 (at zq) and n - q (at zm; the same place for q
+// = 0 and n/2) of the packed forward spectrum -> the packed whitened
+// cross-spectrum: both real rows' bins q whitened against s1[q], their
+// imaginary parts dropped at DC and Nyquist as irfft drops them, written
+// with their mirrors as `store_packed` writes them.  One thread owns the
+// pair, so the in-place update needs no barrier.
+__device__ __forceinline__ void boot_pair(const float2* __restrict__ s1,
+                                          float2* zq, float2* zm, int q,
+                                          int n, float eps) {
+  const float2 a = *zq;
+  const float2 b = *zm;
+  const float2 s = s1[q];
+  float2 wa = whiten(s, split_bin(a, b, 0), eps);
+  float2 wb = whiten(s, split_bin(a, b, 1), eps);
+  const bool edge = q == 0 || q == (n >> 1);
+  if (edge) {
+    wa.y = 0.0f;
+    wb.y = 0.0f;
+  }
+  *zq = make_float2(wa.x - wb.y, wa.y + wb.x);
+  if (!edge) *zm = make_float2(wa.x + wb.y, wb.x - wa.y);
+}
+
+// out = fmaxf(out, v) for a v that is not NaN, atomically, on the float's
+// bits: integer order for v >= +0, reversed unsigned order for a v with
+// the sign bit set (out starts at -inf).
+__device__ __forceinline__ void atomic_max_float(float* out, float v) {
+  if (!signbit(v))
+    atomicMax(reinterpret_cast<int*>(out), __float_as_int(v));
+  else
+    atomicMin(reinterpret_cast<unsigned int*>(out), __float_as_uint(v));
+}
+
+// n <= 4096: one block per packed row (at most 256 threads, two blocks an
+// SM with up to 128 registers a thread), every step in shared memory.
+__global__ void __launch_bounds__(256, 2)
+boot_block(const float2* __restrict__ s1, const float* __restrict__ x,
+           int rows, int len, int n, float eps, const float2* __restrict__ tw,
+           float* __restrict__ out) {
+  using palt::kElems;
+  float2* stw = palt::fft_shared();
+  float2* buf = stw + (n >> 1);
+  float* red = reinterpret_cast<float*>(buf + n);
+  const int c = blockIdx.x;
+  const bool two = 2 * c + 1 < rows;
+  const float* xa = x + (size_t)(2 * c) * len;
+  const float* xb = xa + len;
+  palt::stage_twiddles(stw, tw, n, 1);
+  float2 v[kElems];
+#pragma unroll
+  for (int u = 0; u < kElems; ++u) {
+    const int t = threadIdx.x + u * blockDim.x;
+    const bool live = t < len && t < n;
+    v[u] = make_float2(live ? xa[t] : 0.0f, live && two ? xb[t] : 0.0f);
+  }
+#pragma unroll
+  for (int u = 0; u < kElems; ++u) {
+    const int t = threadIdx.x + u * blockDim.x;
+    if (t < n) buf[t] = v[u];
+  }
+  palt::block_fft<1>(buf, 1, 0, n, stw, 1.0f);
+  for (int q = threadIdx.x; q <= (n >> 1); q += blockDim.x)
+    boot_pair(s1, buf + q, buf + ((n - q) & (n - 1)), q, n, eps);
+  palt::block_fft<1>(buf, 1, 0, n, stw, -1.0f);
+  float mre = -INFINITY;
+  float mim = -INFINITY;
+  for (int t = threadIdx.x; t < n; t += blockDim.x) {
+    mre = fmaxf(mre, buf[t].x);
+    mim = fmaxf(mim, buf[t].y);
+  }
+  mre = block_max(mre, red);
+  mim = block_max(mim, red);
+  if (threadIdx.x == 0) {
+    const float scale = 1.0f / (float)n;
+    out[2 * c] = mre * scale;
+    if (two) out[2 * c + 1] = mim * scale;
+  }
+}
+
+// Pass 2.  Grid (n1 / S blocks, packed rows), S = kStrip rows k1 of K4a's
+// pass 2 a block (half of them the partners n1 - k1 of the other half):
+// forward row DFTs; the whitening, one task a mirror pair of bins (the
+// maps of `fft_real_rows`): bin (r, k2) of a first-half slot (row k1 <
+// n1/2) with bin (r + S/2, n2 - 1 - k2) of row n1 - k1, threads
+// row-fastest so that s1's reads run over consecutive bins; slot 0 of
+// block 0 takes row 0's pairs (k2, -k2 mod n2) for k2 <= n2/2 and then,
+// with one task more, row n1/2's (q, n2 - 1 - q) in slot S/2; inverse row
+// DFTs; times W_n^{-j2 k1}; written back in place (the block owns its
+// rows).  Block 0 of each packed row sets its two maxima to -inf for
+// pass 3.  The rows go back whole, so the strip's width does not set the
+// length of the output's runs as in K4a's pass 2: 16 rows keep a block
+// at n2 threads, and at n2 <= 256 (kMaxThreads 256) two blocks an SM
+// with up to 128 registers a thread, against spills at 64.
+template <int kMaxThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+boot_rows(const float2* __restrict__ s1, int rows, int n1, int n2, float eps,
+          const float2* __restrict__ tw, float2* y, float* __restrict__ out) {
+  using palt::kElems;
+  constexpr int S = palt::kStrip;
+  constexpr int kPairs = S / 2;
+  float2* stw = palt::fft_shared();
+  float2* lo = stw + (n2 >> 1);
+  float2* hi = lo + n1;
+  float2* buf = hi + n2;
+  const int ld = n2 + 1;  // odd sequence stride: conflict-free columns
+  const int n = n1 * n2;
+  const int c = blockIdx.y;
+  const int b = blockIdx.x;
+  if (b == 0 && threadIdx.x == 0) {
+    out[2 * c] = -INFINITY;
+    if (2 * c + 1 < rows) out[2 * c + 1] = -INFINITY;
+  }
+  palt::stage_twiddles(stw, tw, n2, n1);
+  stage_split_tables(lo, hi, tw, n1, n2);
+  float2* yc = y + (size_t)c * n;
+  const int total = S * n2;
+  const int shift = __ffs(n2) - 1;
+  float2 v[kElems];
+#pragma unroll
+  for (int u = 0; u < kElems; ++u) {
+    const int idx = threadIdx.x + u * blockDim.x;
+    const size_t row = pair_row(b, idx >> shift, n1, kPairs);
+    v[u] = idx < total ? yc[row * n2 + (idx & (n2 - 1))]
+                       : make_float2(0.0f, 0.0f);
+  }
+#pragma unroll
+  for (int u = 0; u < kElems; ++u) {
+    const int idx = threadIdx.x + u * blockDim.x;
+    if (idx < total) buf[(idx >> shift) * ld + (idx & (n2 - 1))] = v[u];
+  }
+  palt::block_fft<S>(buf, 1, ld, n2, stw, 1.0f);
+  const int tasks = kPairs * n2 + (b == 0);
+  for (int t = threadIdx.x; t < tasks; t += blockDim.x) {
+    int r = t % kPairs;
+    int k2 = t / kPairs;
+    int row = b * kPairs + r;
+    int pr = r + kPairs;
+    int pk = n2 - 1 - k2;
+    if (row == 0) {
+      if (k2 <= (n2 >> 1)) {  // row 0 is its own partner
+        pr = 0;
+        pk = (n2 - k2) & (n2 - 1);
+      } else {  // row n1/2, in slot S/2, is its own partner
+        r = pr = kPairs;
+        row = n1 / 2;
+        k2 -= (n2 >> 1) + 1;
+        pk = n2 - 1 - k2;
+      }
+    }
+    const int p = row + n1 * k2;
+    float2* zr = buf + r * ld + k2;
+    float2* zp = buf + pr * ld + pk;
+    if (p <= (n >> 1))
+      boot_pair(s1, zr, zp, p, n, eps);
+    else
+      boot_pair(s1, zp, zr, n - p, n, eps);
+  }
+  palt::block_fft<S>(buf, 1, ld, n2, stw, -1.0f);
+  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+    const int r = idx >> shift;
+    const int j2 = idx & (n2 - 1);
+    const int row = pair_row(b, r, n1, kPairs);
+    float2 w = split_twiddle(lo, hi, j2 * row, n1);
+    w.y = -w.y;
+    yc[(size_t)row * n2 + j2] = cmul(buf[r * ld + j2], w);
+  }
+}
+
+// Pass 3, pass 1 mirrored.  Grid (n2 / kStrip column strips, packed
+// rows): the inverse n1-point DFTs down the strip's columns give samples
+// n2*j1 + j2 of the packed inverse; the block's maxima of their real and
+// imaginary parts, times 1/n, go into out[2c] and out[2c + 1]
+// (`atomic_max_float`).
+__global__ void __launch_bounds__(1024)
+boot_cols(const float2* __restrict__ y, int rows, int n1, int n2,
+          const float2* __restrict__ tw, float* out) {
+  using palt::kElems;
+  using palt::kStrip;
+  float2* stw = palt::fft_shared();
+  float2* buf = stw + (n1 >> 1);
+  float* red = reinterpret_cast<float*>(buf + n1 * kStrip);
+  const int n = n1 * n2;
+  const int c = blockIdx.y;
+  const int c0 = blockIdx.x * kStrip;
+  palt::stage_twiddles(stw, tw, n1, n2);
+  const float2* yc = y + (size_t)c * n;
+  const int total = n1 * kStrip;
+  float2 v[kElems];
+#pragma unroll
+  for (int u = 0; u < kElems; ++u) {
+    const int idx = threadIdx.x + u * blockDim.x;
+    v[u] = idx < total ? yc[(size_t)(idx / kStrip) * n2 + c0 + idx % kStrip]
+                       : make_float2(0.0f, 0.0f);
+  }
+#pragma unroll
+  for (int u = 0; u < kElems; ++u) {
+    const int idx = threadIdx.x + u * blockDim.x;
+    if (idx < total) buf[idx] = v[u];
+  }
+  palt::block_fft<kStrip>(buf, kStrip, 1, n1, stw, -1.0f);
+  float mre = -INFINITY;
+  float mim = -INFINITY;
+  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+    mre = fmaxf(mre, buf[idx].x);
+    mim = fmaxf(mim, buf[idx].y);
+  }
+  mre = block_max(mre, red);
+  mim = block_max(mim, red);
+  if (threadIdx.x == 0) {
+    const float scale = 1.0f / (float)n;
+    atomic_max_float(out + 2 * c, mre * scale);
+    if (2 * c + 1 < rows) atomic_max_float(out + 2 * c + 1, mim * scale);
+  }
+}
+
+// In place: packed row spectra -> packed whitened cross-spectra against s1
+// (the radix-2 pipeline of `boot_stage`).
 __global__ void boot_whiten(const float2* __restrict__ s1, float eps, int n,
                             float2* __restrict__ z) {
   const int c = blockIdx.y;
@@ -569,19 +834,41 @@ __global__ void noise_first_pass(const int* __restrict__ seeds, int rows,
 
 // ---- K7: PHAT whitening of complex spectra -------------------------------
 
-// z / (|z| + eps) over interleaved complex64, in the TPU kernel's order
+// z / (|z| + eps) of one bin, in the TPU kernel's order
 // (ops/pallas_kernels.py:26-31): inv = 1 / (sqrt(re^2 + im^2) + eps), then
 // both parts times inv.  The squares and their sum are rounded separately
 // (no fused multiply-add), as the plain float32 expression rounds them.
-// in == out is allowed.
-__global__ void whiten_bins(const float2* in, long long count, float eps,
-                            float2* out) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < count; i += (long long)gridDim.x * blockDim.x) {
-    const float2 z = in[i];
-    const float mag2 = __fadd_rn(__fmul_rn(z.x, z.x), __fmul_rn(z.y, z.y));
-    const float inv = 1.0f / (sqrtf(mag2) + eps);
-    out[i] = make_float2(z.x * inv, z.y * inv);
+__device__ __forceinline__ float2 phat_bin(float2 z, float eps) {
+  const float mag2 = __fadd_rn(__fmul_rn(z.x, z.x), __fmul_rn(z.y, z.y));
+  const float inv = 1.0f / (sqrtf(mag2) + eps);
+  return make_float2(z.x * inv, z.y * inv);
+}
+
+// `phat_bin` over interleaved complex64, two bins a thread with one
+// 16-byte load: bin 0 alone where `in` is only 8-byte aligned (head = 1),
+// then the pairs from in + head (one 16-byte store where out + head is
+// 16-byte aligned too, vec_out, else two 8-byte stores), then an odd last
+// bin alone.  in == out is allowed.
+__global__ void whiten_bins(const float2* in, long long count, int head,
+                            int vec_out, float eps, float2* out) {
+  const long long pairs = (count - head) >> 1;
+  const long long t0 = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const float4* in4 = reinterpret_cast<const float4*>(in + head);
+  for (long long t = t0; t < pairs; t += (long long)gridDim.x * blockDim.x) {
+    const float4 q = in4[t];
+    const float2 a = phat_bin(make_float2(q.x, q.y), eps);
+    const float2 b = phat_bin(make_float2(q.z, q.w), eps);
+    float2* o = out + head + 2 * t;
+    if (vec_out) {
+      *reinterpret_cast<float4*>(o) = make_float4(a.x, a.y, b.x, b.y);
+    } else {
+      o[0] = a;
+      o[1] = b;
+    }
+  }
+  if (t0 == 0) {
+    if (head) out[0] = phat_bin(in[0], eps);
+    if (head + 2 * pairs < count) out[count - 1] = phat_bin(in[count - 1], eps);
   }
 }
 
@@ -775,8 +1062,9 @@ void window_stage(const float2* spec, int scenes, int mics,
                                                 1.0f / (float)n, win, stats);
 }
 
-// K4b's and K6's pipeline after buf0 holds the rows (packed two to a
-// complex row) with their first `done` forward passes applied: the other
+// K6's pipeline (and K4b's above 2^20) on the radix-2 passes, after buf0
+// holds the rows (packed two to a complex row) with their first `done`
+// forward passes applied: the other
 // forward passes, whitening against s1 in place, the packed inverse with
 // its last pass fused with the row maxima.
 void boot_stage(const float2* s1, int rows, int n, float eps, int done,
@@ -885,16 +1173,67 @@ int palt_gcc_windowed(const float* x, int scenes, int mics, int len, int n,
 }
 
 // K4b: s1 (n/2+1) complex, rows x (rows, len) -> out (rows,) maxima of the
-// PHAT correlations between s1's signal and each row.
+// PHAT correlations between s1's signal and each row.  n1 = 1: one block
+// per packed row (n <= 4096), no buffer; n1 = 0: the radix-2 passes (n >
+// 2^20) through buf's two halves of ceil(rows/2) rows each; else the three
+// launches of the split n = n1 * n2 through buf (ceil(rows/2), n) in
+// place.
 int palt_bootstrap_peaks(const float2* s1, const float* x, int rows, int len,
-                         int n, float eps, const float2* tw, float2* buf0,
-                         float2* buf1, float* out, void* stream) {
+                         int n, int n1, float eps, const float2* tw,
+                         float2* buf, float* out, void* stream) {
+  using palt::fft_threads;
+  using palt::kStrip;
   cudaStream_t s = (cudaStream_t)stream;
   const int packed = (rows + 1) / 2;
-  pack_rows<<<dim3(palt::pass_blocks(n), packed), kThreads, 0, s>>>(
-      x, rows, len, len, n, buf0);
+  const int red = 16 * (int)sizeof(float2);  // block_max's 32 floats
+  if (n1 == 0) {
+    pack_rows<<<dim3(palt::pass_blocks(n), packed), kThreads, 0, s>>>(
+        x, rows, len, len, n, buf);
+    PALT_CHECK();
+    boot_stage(s1, rows, n, eps, 0, tw, buf, buf + (size_t)packed * n, out,
+               s);
+    PALT_CHECK();
+    return 0;
+  }
+  cudaError_t err;
+  if (n1 == 1) {
+    int threads = fft_threads(n, 1);
+    threads = threads < 32 ? 32 : threads;  // whole warps for block_max
+    err = palt::allow_smem<boot_block>();
+    if (err != cudaSuccess) return (int)err;
+    boot_block<<<packed, threads, (n / 2 + n) * (int)sizeof(float2) + red,
+                 s>>>(s1, x, rows, len, n, eps, tw, out);
+    PALT_CHECK();
+    return 0;
+  }
+  const int n2 = n / n1;
+  err = palt::allow_smem<fft_real_cols>();
+  if (err != cudaSuccess) return (int)err;
+  fft_real_cols<<<dim3(n2 / kStrip, packed), fft_threads(n1, kStrip),
+                  (n1 / 2 + n1 + n2 + n1 * kStrip) * (int)sizeof(float2),
+                  s>>>(x, rows, len, n1, n2, tw, buf);
   PALT_CHECK();
-  boot_stage(s1, rows, n, eps, 0, tw, buf0, buf1, out, s);
+  const dim3 grid2(n1 / kStrip, packed);
+  const int threads2 = fft_threads(n2, kStrip);
+  const int smem2 =
+      (n2 / 2 + n1 + n2 + kStrip * (n2 + 1)) * (int)sizeof(float2);
+  if (n2 <= 256) {
+    err = palt::allow_smem<boot_rows<256, 2>>();
+    if (err != cudaSuccess) return (int)err;
+    boot_rows<256, 2><<<grid2, threads2, smem2, s>>>(s1, rows, n1, n2, eps,
+                                                     tw, buf, out);
+  } else {
+    err = palt::allow_smem<boot_rows<1024, 1>>();
+    if (err != cudaSuccess) return (int)err;
+    boot_rows<1024, 1><<<grid2, threads2, smem2, s>>>(s1, rows, n1, n2, eps,
+                                                      tw, buf, out);
+  }
+  PALT_CHECK();
+  err = palt::allow_smem<boot_cols>();
+  if (err != cudaSuccess) return (int)err;
+  boot_cols<<<dim3(n2 / kStrip, packed), fft_threads(n1, kStrip),
+              (n1 / 2 + n1 * kStrip) * (int)sizeof(float2) + red, s>>>(
+      buf, rows, n1, n2, tw, out);
   PALT_CHECK();
   return 0;
 }
@@ -920,10 +1259,15 @@ int palt_noise_bootstrap_peaks(const float2* s1, const int* seeds, int rows,
 int palt_whiten(const float2* z, long long count, float eps, float2* out,
                 void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  long long blocks = (count + kThreads - 1) / kThreads;
-  if (blocks > 4096) blocks = 4096;
+  const int head = count > 0 && ((uintptr_t)z & 15) != 0;
+  const int vec_out = ((uintptr_t)(out + head) & 15) == 0;
+  // One thread a pair of bins, at most one wave of resident blocks.
+  const long long wave = (long long)sm_count() * (2048 / kThreads);
+  long long blocks = ((count - head) / 2 + kThreads - 1) / kThreads;
+  if (blocks > wave) blocks = wave;
   if (blocks < 1) blocks = 1;
-  whiten_bins<<<(int)blocks, kThreads, 0, s>>>(z, count, eps, out);
+  whiten_bins<<<(int)blocks, kThreads, 0, s>>>(z, count, head, vec_out, eps,
+                                               out);
   PALT_CHECK();
   return 0;
 }

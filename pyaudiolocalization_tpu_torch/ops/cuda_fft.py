@@ -11,7 +11,7 @@ fft_real              bfly_fft_real (:685)                   memory: 2 launches
 whitened_corr         bfly_whitened_corr (:707)              memory: FFT passes
 gcc_all_pairs         bfly_gcc_all_pairs (:922)              memory: FFT passes
 gcc_windowed          bfly_gcc_windowed (:1095)              memory: FFT passes
-bootstrap_peaks       bfly_bootstrap_peaks (:1227)           memory: FFT passes
+bootstrap_peaks       bfly_bootstrap_peaks (:1227)           memory: 3 launches
 noise_bootstrap_peaks bfly_noise_bootstrap_peaks (:1326)     memory: FFT passes
 scene_windowed        bfly_scene_windowed (:1600)            memory: FFT passes
 delay_sum             bfly_delay_sum (:1851)                 memory: FFT passes
@@ -24,12 +24,13 @@ The three kernels of K10, the TPU package's A/B tool of FFT schedules
 library from ``csrc/rowdft.cu``; their launches count here too.
 
 All but ``whiten`` are built on one FFT (``csrc/fft.cuh``) in two
-schedules.  ``fft_real`` (and K10's ``row_stages``) run on-chip
-sub-transforms: a block holds a strip of sequences in shared memory for
-all of its radix-16 stages, and a long row is a four-step split of two
-such launches (``fft_real_split``), so a transform reads and writes each
-point once per launch (16 bytes a complex point) and is bound by device
-memory at that.  The others run radix-2 Stockham passes over rows in
+schedules.  ``fft_real``, ``bootstrap_peaks`` (and K10's ``row_stages``)
+run on-chip sub-transforms: a block holds a strip of sequences in shared
+memory for all of its radix-16 stages, and a long row is a four-step
+split of two such launches (``fft_real_split``; the bootstrap runs it
+forward and back in three), so a transform reads and writes each point
+once per launch (16 bytes a complex point) and is bound by device memory
+at that.  The others run radix-2 Stockham passes over rows in
 device memory, one launch and 16 bytes a point per pass, about
 16·log2(nfft) bytes per point and transform; they fuse their first or last
 pass into a prologue or epilogue.  The design keeps the rest of the work out of device memory where
@@ -157,7 +158,7 @@ def _library() -> ctypes.CDLL:
             "palt_whitened_corr": [p, p, i, i, p, f, p, p, p, p, p],
             "palt_gcc_all_pairs": [p, i, i, i, i, p, p, i, p, f, p, p, p, p,
                                    p, p, p],
-            "palt_bootstrap_peaks": [p, p, i, i, i, f, p, p, p, p, p],
+            "palt_bootstrap_peaks": [p, p, i, i, i, i, f, p, p, p, p],
             "palt_gcc_windowed": [p, i, i, i, i, p, p, i, p, f, i, p, p, p,
                                   p, p, p, p, p],
             "palt_delay_sum": [p, i, i, p, p, i, i, i, i, p, i, p, p, p, p,
@@ -209,13 +210,22 @@ def _check_f32(name: str, *tensors: torch.Tensor) -> None:
 
 
 def _use_plain(*tensors: torch.Tensor) -> bool:
-    devices = {t.device.type for t in tensors}
-    if devices == {"cpu"}:
-        return True
-    if devices == {"cuda"}:
-        return False
+    # Plain loops over the tensors' flags: this runs on every call.
+    if tensors[0].is_cuda:
+        for t in tensors:
+            if not t.is_cuda:
+                break
+        else:
+            return False
+    elif tensors[0].is_cpu:
+        for t in tensors:
+            if not t.is_cpu:
+                break
+        else:
+            return True
+    devices = sorted({t.device.type for t in tensors})
     raise ValueError(f"tensors must all lie on the CPU or all on CUDA, got "
-                     f"{sorted(devices)}")
+                     f"{devices}")
 
 
 def _raise_on(name: str, err: int) -> None:
@@ -224,8 +234,23 @@ def _raise_on(name: str, err: int) -> None:
                            f"({torch.cuda.get_device_name()})")
 
 
-def _stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def _launch(name: str, device: torch.device, entry, *args) -> None:
+    """Counts one launch of ``name`` in ``LAUNCHES`` and calls the library
+    entry ``entry(*args, stream)`` on ``device``'s current stream; raises
+    on the CUDA error it returns.  The stream is the raw pointer (no
+    ``torch.cuda.Stream`` object is built), and the device guard is
+    entered only where ``device`` is not the current device: a one-row
+    call's host time is most of its time on the card."""
+    index = device.index
+    LAUNCHES[name] += 1
+    # A CUDA tensor exists, so torch has initialised CUDA: the current
+    # device is read without torch.cuda.current_device()'s lazy-init check.
+    if index == torch._C._cuda_getDevice():
+        err = entry(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = entry(*args, torch._C._cuda_getCurrentRawStream(index))
+    _raise_on(name, err)
 
 
 def _scratch(rows: int, nfft: int, device) -> torch.Tensor:
@@ -309,14 +334,10 @@ def fft_real(x: torch.Tensor, nfft: int) -> torch.Tensor:
     n1, n2 = fft_real_split(nfft)
     buf = _scratch((rows + 1) // 2, nfft, dev) if n1 > 1 else None
     tw = _twiddles(nfft, str(dev))
-    with torch.cuda.device(dev):
-        LAUNCHES["fft_real"] += 1
-        err = lib.palt_fft_real(x.data_ptr(), rows, length, nfft, n1,
-                                fft_real_rows_strip(n2, (rows + 1) // 2),
-                                tw.data_ptr(),
-                                None if buf is None else buf.data_ptr(),
-                                out.data_ptr(), _stream(dev))
-    _raise_on("fft_real", err)
+    _launch("fft_real", dev, lib.palt_fft_real, x.data_ptr(), rows, length,
+            nfft, n1, fft_real_rows_strip(n2, (rows + 1) // 2),
+            tw.data_ptr(), None if buf is None else buf.data_ptr(),
+            out.data_ptr())
     return out
 
 
@@ -367,13 +388,9 @@ def whitened_corr(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
     out = torch.empty((rows, nfft), dtype=torch.float32, device=dev)
     z = [_scratch((rows + 1) // 2, nfft, dev) for _ in range(2)]
     tw = _twiddles(nfft, str(dev))
-    with torch.cuda.device(dev):
-        LAUNCHES["whitened_corr"] += 1
-        err = lib.palt_whitened_corr(a.data_ptr(), b.data_ptr(), rows, nfft,
-                                     mask.data_ptr(), eps, tw.data_ptr(),
-                                     z[0].data_ptr(), z[1].data_ptr(),
-                                     out.data_ptr(), _stream(dev))
-    _raise_on("whitened_corr", err)
+    _launch("whitened_corr", dev, lib.palt_whitened_corr, a.data_ptr(),
+            b.data_ptr(), rows, nfft, mask.data_ptr(), eps, tw.data_ptr(),
+            z[0].data_ptr(), z[1].data_ptr(), out.data_ptr())
     return out
 
 
@@ -449,16 +466,13 @@ def gcc_all_pairs(signals: torch.Tensor, pairs_i: Sequence[int],
     spec = [_scratch((chunk * mics + 1) // 2, nfft, dev) for _ in range(2)]
     cpl = [_scratch(chunk * couples, nfft, dev) for _ in range(2)]
     tw = _twiddles(nfft, str(dev))
-    with torch.cuda.device(dev):
-        for s0 in range(0, scenes, chunk):
-            LAUNCHES["gcc_all_pairs"] += 1
-            err = lib.palt_gcc_all_pairs(
+    for s0 in range(0, scenes, chunk):
+        _launch("gcc_all_pairs", dev, lib.palt_gcc_all_pairs,
                 x[s0].data_ptr(), min(chunk, scenes - s0), mics, length,
                 nfft, pi_t.data_ptr(), pj_t.data_ptr(), num_pairs,
                 mask.data_ptr(), eps, tw.data_ptr(), spec[0].data_ptr(),
                 spec[1].data_ptr(), cpl[0].data_ptr(), cpl[1].data_ptr(),
-                o[s0].data_ptr(), _stream(dev))
-            _raise_on("gcc_all_pairs", err)
+                o[s0].data_ptr())
     return out
 
 
@@ -540,15 +554,11 @@ def gcc_windowed(signals: torch.Tensor, pairs_i: Sequence[int],
     spec = [_scratch((rows + 1) // 2, nfft, dev) for _ in range(2)]
     cpl = [_scratch(scenes * couples, nfft, dev) for _ in range(2)]
     tw = _twiddles(nfft, str(dev))
-    with torch.cuda.device(dev):
-        LAUNCHES["gcc_windowed"] += 1
-        err = lib.palt_gcc_windowed(
-            signals.data_ptr(), scenes, mics, length, nfft, pi_t.data_ptr(),
-            pj_t.data_ptr(), num_pairs, mask.data_ptr(), eps, wq,
-            tw.data_ptr(), spec[0].data_ptr(), spec[1].data_ptr(),
-            cpl[0].data_ptr(), cpl[1].data_ptr(), win.data_ptr(),
-            stats.data_ptr(), _stream(dev))
-    _raise_on("gcc_windowed", err)
+    _launch("gcc_windowed", dev, lib.palt_gcc_windowed, signals.data_ptr(),
+            scenes, mics, length, nfft, pi_t.data_ptr(), pj_t.data_ptr(),
+            num_pairs, mask.data_ptr(), eps, wq, tw.data_ptr(),
+            spec[0].data_ptr(), spec[1].data_ptr(), cpl[0].data_ptr(),
+            cpl[1].data_ptr(), win.data_ptr(), stats.data_ptr())
     return win, stats
 
 
@@ -571,10 +581,23 @@ def bootstrap_peaks(s1: torch.Tensor, rows: torch.Tensor, nfft: int,
     ``rows`` ((B, len <= nfft) real) -> (B,).
 
     Replaces ``bfly_bootstrap_peaks`` (pyaudiolocalization_tpu/ops/
-    pallas_fft.py:1227): per pair of rows one forward transform, the
-    whitening against S1 in place, the packed inverse, and the last
-    inverse pass fused with the row maxima, so the (B, nfft) correlation
-    is never written.  Bound by the FFT passes' device-memory traffic."""
+    pallas_fft.py:1227): per pair of rows one packed forward transform,
+    the whitening against S1, the packed inverse and the row maxima, so
+    the (B, nfft) correlation is never written.  By length:
+
+    - nfft <= ``FFT_REAL_ONE_BLOCK`` (4096): one launch, a block per
+      packed row holding every step in shared memory, no scratch;
+    - up to ``FFT_REAL_MAX`` (2^20): three launches over one scratch
+      buffer, K4a's split nfft = n1 * n2 (``fft_real_split``) forward and
+      back: K4a's column pass; a row pass (16 rows a block) that runs the
+      forward row DFTs, the whitening, the inverse row DFTs and the
+      inverse twiddle in shared memory and writes back in place; and a
+      column pass whose inverse column DFTs end in the maxima;
+    - above: the radix-2 passes through device memory (one launch a
+      pass), ping-ponging in a scratch buffer of twice the packed rows.
+
+    Bound by device memory: the rows' read and, on the split, two reads
+    and two writes of the packed buffer."""
     if _use_plain(s1, rows):
         return bootstrap_peaks_plain(s1, rows, nfft, eps)
     _check_contiguous("bootstrap_peaks", s1, rows)
@@ -590,15 +613,15 @@ def bootstrap_peaks(s1: torch.Tensor, rows: torch.Tensor, nfft: int,
     lib = _library()
     dev = rows.device
     out = torch.empty(num, dtype=torch.float32, device=dev)
-    bufs = [_scratch((num + 1) // 2, nfft, dev) for _ in range(2)]
+    packed = (num + 1) // 2
+    # n1 = 0 selects the passes (two halves of one buffer), 1 one block.
+    n1 = fft_real_split(nfft)[0] if nfft <= FFT_REAL_MAX else 0
+    buf = (None if n1 == 1 else
+           _scratch(packed * (2 if n1 == 0 else 1), nfft, dev))
     tw = _twiddles(nfft, str(dev))
-    with torch.cuda.device(dev):
-        LAUNCHES["bootstrap_peaks"] += 1
-        err = lib.palt_bootstrap_peaks(
-            s1.data_ptr(), rows.data_ptr(), num, length, nfft, eps,
-            tw.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
-            out.data_ptr(), _stream(dev))
-    _raise_on("bootstrap_peaks", err)
+    _launch("bootstrap_peaks", dev, lib.palt_bootstrap_peaks, s1.data_ptr(),
+            rows.data_ptr(), num, length, nfft, n1, eps, tw.data_ptr(),
+            None if buf is None else buf.data_ptr(), out.data_ptr())
     return out
 
 
@@ -644,13 +667,10 @@ def noise_bootstrap_peaks(s1: torch.Tensor, seeds: torch.Tensor,
     out = torch.empty(num, dtype=torch.float32, device=dev)
     bufs = [_scratch((num + 1) // 2, nfft, dev) for _ in range(2)]
     tw = _twiddles(nfft, str(dev))
-    with torch.cuda.device(dev):
-        LAUNCHES["noise_bootstrap_peaks"] += 1
-        err = lib.palt_noise_bootstrap_peaks(
+    _launch("noise_bootstrap_peaks", dev, lib.palt_noise_bootstrap_peaks,
             s1.data_ptr(), seeds.data_ptr(), num, n_samp, nfft, eps,
             tw.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
-            out.data_ptr(), _stream(dev))
-    _raise_on("noise_bootstrap_peaks", err)
+            out.data_ptr())
     return out
 
 
@@ -758,17 +778,13 @@ def delay_sum(base: torch.Tensor, tau: torch.Tensor, gains: torch.Tensor,
     zb = [_scratch((scenes + 1) // 2, nfft, dev) for _ in range(2)]
     zm = [_scratch((scenes * mics + 1) // 2, nfft, dev) for _ in range(2)]
     tw = _twiddles(nfft, str(dev))
-    with torch.cuda.device(dev):
-        LAUNCHES["delay_sum"] += 1
-        err = lib.palt_delay_sum(
-            base.data_ptr(), scenes, length, tau.data_ptr(),
-            gains.data_ptr(), mics, paths, nfft, out_samples,
-            fade.data_ptr(), int(finalize),
+    _launch("delay_sum", dev, lib.palt_delay_sum, base.data_ptr(), scenes,
+            length, tau.data_ptr(), gains.data_ptr(), mics, paths, nfft,
+            out_samples, fade.data_ptr(), int(finalize),
             None if snr_db is None else snr_db.data_ptr(),
             None if seeds is None else seeds.data_ptr(), tw.data_ptr(),
             zb[0].data_ptr(), zb[1].data_ptr(), zm[0].data_ptr(),
-            zm[1].data_ptr(), out.data_ptr(), _stream(dev))
-    _raise_on("delay_sum", err)
+            zm[1].data_ptr(), out.data_ptr())
     return out
 
 
@@ -837,19 +853,15 @@ def scene_windowed(base: torch.Tensor, tau: torch.Tensor,
     zm = [_scratch((scenes * mics + 1) // 2, nfft, dev) for _ in range(2)]
     cpl = [_scratch(scenes * couples, nfft, dev) for _ in range(2)]
     tw = _twiddles(nfft, str(dev))
-    with torch.cuda.device(dev):
-        LAUNCHES["scene_windowed"] += 1
-        err = lib.palt_scene_windowed(
-            base.data_ptr(), scenes, length, tau.data_ptr(),
-            gains.data_ptr(), mics, paths, nfft, out_samples,
-            fade.data_ptr(), None if snr_db is None else snr_db.data_ptr(),
+    _launch("scene_windowed", dev, lib.palt_scene_windowed, base.data_ptr(),
+            scenes, length, tau.data_ptr(), gains.data_ptr(), mics, paths,
+            nfft, out_samples, fade.data_ptr(),
+            None if snr_db is None else snr_db.data_ptr(),
             None if seeds is None else seeds.data_ptr(), pi_t.data_ptr(),
             pj_t.data_ptr(), num_pairs, mask.data_ptr(), eps, wq,
             tw.data_ptr(), zb[0].data_ptr(), zb[1].data_ptr(),
             zm[0].data_ptr(), zm[1].data_ptr(), cpl[0].data_ptr(),
-            cpl[1].data_ptr(), win.data_ptr(), stats.data_ptr(),
-            _stream(dev))
-    _raise_on("scene_windowed", err)
+            cpl[1].data_ptr(), win.data_ptr(), stats.data_ptr())
     return win, stats
 
 
@@ -873,8 +885,11 @@ def whiten(spec: torch.Tensor, eps: float = PHAT_EPS,
     Replaces ``phat_whiten_planes`` (pyaudiolocalization_tpu/ops/
     pallas_kernels.py:34), which takes separate (rows, bins) real and
     imaginary planes; the port's spectra are complex64, so the kernel reads
-    them interleaved, one pass, 8 bytes in and 8 out per bin: bound by
-    device-memory bandwidth."""
+    them interleaved, one pass, 8 bytes in and 8 out per bin, two bins a
+    thread with 16-byte loads and stores (a view that starts between two
+    16-byte words, such as ``spec[..., 1:]``, takes its first bin alone).
+    Bound by device-memory bandwidth; at one scene's 44,100 bins, by the
+    launch."""
     if _use_plain(spec):
         return whiten_plain(spec, eps)
     _check_contiguous("whiten", spec)
@@ -882,11 +897,7 @@ def whiten(spec: torch.Tensor, eps: float = PHAT_EPS,
         raise ValueError(f"whiten: the kernel takes complex64, got "
                          f"{spec.dtype}")
     lib = _library()
-    dev = spec.device
     out = spec if inplace else torch.empty_like(spec)
-    with torch.cuda.device(dev):
-        LAUNCHES["whiten"] += 1
-        err = lib.palt_whiten(spec.data_ptr(), spec.numel(), eps,
-                              out.data_ptr(), _stream(dev))
-    _raise_on("whiten", err)
+    _launch("whiten", spec.device, lib.palt_whiten, spec.data_ptr(),
+            spec.numel(), eps, out.data_ptr())
     return out

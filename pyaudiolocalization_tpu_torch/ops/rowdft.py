@@ -245,23 +245,18 @@ def _row_launch(kind: str, xr, xi, n2: int, inverse: bool, rep: int,
     count = 2 if stages else 4
     scratch = ([torch.empty(shape, dtype=torch.float32, device=dev)
                 for _ in range(count)] if rep > 1 else [None] * count)
-    with torch.cuda.device(dev):
-        cf.LAUNCHES[kind] += 1
-        if stages:
-            tw = cf._twiddles(n2, str(dev))
-            err = lib.palt_row_stages(
-                xr.data_ptr(), _ptr(xi), planes, n2, xr.shape[1],
-                int(inverse), rep, scale, tw.data_ptr(),
-                *[_ptr(s) for s in scratch], out_r.data_ptr(), _ptr(out_i),
-                mode, cf._stream(dev))
-        else:
-            table = _on("table", n2, str(dev))
-            err = lib.palt_row_dft(
-                xr.data_ptr(), _ptr(xi), planes, n2, xr.shape[1],
-                int(inverse), rep, scale, table.data_ptr(),
-                *[_ptr(s) for s in scratch], out_r.data_ptr(), _ptr(out_i),
-                mode, terms, cf._stream(dev))
-    cf._raise_on(kind, err)
+    if stages:
+        cf._launch(kind, dev, lib.palt_row_stages, xr.data_ptr(), _ptr(xi),
+                   planes, n2, xr.shape[1], int(inverse), rep, scale,
+                   cf._twiddles(n2, str(dev)).data_ptr(),
+                   *[_ptr(s) for s in scratch], out_r.data_ptr(),
+                   _ptr(out_i), mode)
+    else:
+        cf._launch(kind, dev, lib.palt_row_dft, xr.data_ptr(), _ptr(xi),
+                   planes, n2, xr.shape[1], int(inverse), rep, scale,
+                   _on("table", n2, str(dev)).data_ptr(),
+                   *[_ptr(s) for s in scratch], out_r.data_ptr(),
+                   _ptr(out_i), mode, terms)
     return out_r, out_i
 
 
@@ -281,14 +276,11 @@ def _lane_launch(ar, ai, br=None, bi=None, conj: bool = False,
     else:
         out_r = torch.empty_like(ar)
         out_i = torch.empty_like(ar)
-    with torch.cuda.device(dev):
-        cf.LAUNCHES["lane_dft"] += 1
-        err = lib.palt_lane_dft(
-            ar.data_ptr(), _ptr(ai), _ptr(br), _ptr(bi), planes, n2,
-            CHAIN_EPS, int(conj), _ptr(tw[0]), _ptr(tw[1]),
-            _on("table", N1, str(dev)).data_ptr(), _ptr(out_r), _ptr(out_i),
-            _ptr(out_nat), terms, cf._stream(dev))
-    cf._raise_on("lane_dft", err)
+    cf._launch("lane_dft", dev, lib.palt_lane_dft, ar.data_ptr(), _ptr(ai),
+               _ptr(br), _ptr(bi), planes, n2, CHAIN_EPS, int(conj),
+               _ptr(tw[0]), _ptr(tw[1]),
+               _on("table", N1, str(dev)).data_ptr(), _ptr(out_r),
+               _ptr(out_i), _ptr(out_nat), terms)
     return out_nat if natural else (out_r, out_i)
 
 

@@ -110,7 +110,10 @@ def _device_kernels(fn, path):
 @pytest.mark.cuda
 def test_device_kernels_per_call(cuda, tmp_path):
     """The design, not just the answer: K4a runs two kernels at 65,536 (the
-    four-step passes) and one at 4,096; K10b one kernel per transform."""
+    four-step passes) and one at 4,096; K4b three at 65,536 (K4a's column
+    pass, the row pass with the whitening, the column pass with the
+    maxima, which it combines with atomics: no separate reduction) and one
+    at 4,096; K10b one kernel per transform."""
     from pyaudiolocalization_tpu_torch.ops import rowdft as rd
     x = torch.randn((2, 44100), generator=_gen(cuda), device=cuda)
     names = _device_kernels(lambda: cf.fft_real(x, 65536),
@@ -121,6 +124,16 @@ def test_device_kernels_per_call(cuda, tmp_path):
     names = _device_kernels(lambda: cf.fft_real(short, 4096),
                             tmp_path / "small.json")
     assert len(names) == 1 and "fft_real_block" in names[0], names
+    s1 = cf.fft_real(x[:1], 65536)[0].contiguous()
+    names = _device_kernels(lambda: cf.bootstrap_peaks(s1, x, 65536),
+                            tmp_path / "k4b.json")
+    assert len(names) == 3, names
+    assert ("fft_real_cols" in names[0] and "boot_rows" in names[1]
+            and "boot_cols" in names[2]), names
+    s1 = cf.fft_real(short[:1], 4096)[0].contiguous()
+    names = _device_kernels(lambda: cf.bootstrap_peaks(s1, short, 4096),
+                            tmp_path / "k4b_small.json")
+    assert len(names) == 1 and "boot_block" in names[0], names
     xr, xi = _planes(cuda, 8, 512)
     for rep in (1, 3):
         names = _device_kernels(lambda: rd.row_stages(xr, xi, rep=rep),
@@ -130,9 +143,15 @@ def test_device_kernels_per_call(cuda, tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,length,nfft", [(999, 3000, 4096), (1, 100, 128),
-                                              (64, 44100, 65536)])
+@pytest.mark.parametrize("rows,length,nfft", [
+    (999, 3000, 4096), (1, 100, 128), (64, 44100, 65536), (2, 44100, 65536),
+    (1000, 44100, 131072), (1, 3, 4), (3, 200000, 1 << 18),
+    (3, 600000, 1 << 20), (3, 100000, 1 << 21)])
 def test_bootstrap_peaks_kernel_matches_plain(cuda, rows, length, nfft):
+    """One block (nfft <= 4096), the three launches of the split (n2 =
+    256 at 65,536 and 131,072 with 2 and 1000 rows, n2 = 512 at 2^18 and
+    1024 x 1024 at 2^20, whose row pass runs 512 and 1024 threads) and the
+    radix-2 passes above 2^20."""
     g = _gen(cuda)
     s1 = cf.fft_real_plain(torch.randn((1, length), generator=g,
                                        device=cuda), nfft)[0].contiguous()
@@ -186,6 +205,30 @@ def test_whiten_kernel_matches_plain(cuda, shape):
     own = spec.clone()
     assert cf.whiten(own, inplace=True).data_ptr() == own.data_ptr()
     assert torch.equal(own, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bins", [44100, 44101, 1, 2, 3])
+def test_whiten_kernel_takes_misaligned_views(cuda, bins):
+    """A view that starts between two 16-byte words (``spec[..., 1:]``),
+    into a new, aligned output (two 8-byte stores a pair) and in place
+    (16-byte stores), and odd counts: the first bin alone, then pairs,
+    then the last bin alone."""
+    g = _gen(cuda, 3)
+    base = torch.complex(torch.randn((1, bins + 1), generator=g, device=cuda),
+                         torch.randn((1, bins + 1), generator=g, device=cuda))
+    view = base[..., 1:]
+    assert view.is_contiguous() and view.data_ptr() % 16 == 8
+    want = cf.whiten_plain(view)
+    got = cf.whiten(view)
+    torch.cuda.synchronize()
+    assert got.data_ptr() % 16 == 0
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    own = base.clone()
+    cf.whiten(own[..., 1:], inplace=True)
+    torch.cuda.synchronize()
+    assert torch.equal(own[..., 1:], got)
+    assert torch.equal(own[..., 0], base[..., 0])   # the bin before the view
 
 
 @pytest.mark.cuda
@@ -352,6 +395,49 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
     x = torch.empty((2, 100), device="meta")
     with pytest.raises(ValueError, match="CPU or all on CUDA"):
         cf.fft_real(x, 128)
+    with pytest.raises(ValueError, match=r"\['cpu', 'meta'\]"):
+        cf.whitened_corr(torch.zeros(3, dtype=torch.complex64),
+                         torch.empty(3, dtype=torch.complex64,
+                                     device="meta"), torch.ones(3), 4)
+
+
+def test_launch_helper_guards_only_another_device(monkeypatch):
+    """``_launch`` counts the launch, passes the current stream's raw
+    pointer last, enters the device guard only for a device that is not
+    the current one, and raises on the CUDA error the entry returns (the
+    CUDA calls stubbed)."""
+    entered = []
+
+    class Guard:
+        def __init__(self, index):
+            entered.append(index)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: 0,
+                        raising=False)
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "card")
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda index: 1000 + index, raising=False)
+    monkeypatch.setitem(cf.LAUNCHES, "whiten", 0)
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return 0
+
+    cf._launch("whiten", torch.device("cuda", 0), entry, 7, 8)
+    assert calls == [(7, 8, 1000)] and entered == []
+    cf._launch("whiten", torch.device("cuda", 1), entry, 7)
+    assert calls[-1] == (7, 1001) and entered == [1]
+    assert cf.LAUNCHES["whiten"] == 2
+    with pytest.raises(RuntimeError, match="whiten: CUDA error 2"):
+        cf._launch("whiten", torch.device("cuda", 0), lambda *args: 2)
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 """A float64 numpy model of the on-chip FFT schedules of ``csrc/fft.cuh``,
-K4a (``palt_fft_real``) and K10b (``palt_row_stages``), that follows the
-kernels' index maps step by step, held against ``np.fft``.
+K4a (``palt_fft_real``), K4b (``palt_bootstrap_peaks``) and K10b
+(``palt_row_stages``), that follows the kernels' index maps step by step,
+held against ``np.fft``.
 
 The CUDA kernels cannot run here; the model repeats their arithmetic of
 indices so that a wrong map shows before the card sees it:
@@ -16,12 +17,21 @@ indices so that a wrong map shows before the card sees it:
   rows k1 (``cuda_fft.fft_real_rows_strip``) and their partners n1 - k1 (row
   n1/2 in the slot of row 0's) and the k2 maps
   of the Hermitian split, DC and Nyquist; one block for n <= 4096;
+- K4b: K4a's pass 1; pass 2's blocks of 16 rows (any even strip in the
+  model), their forward row DFTs, the whitening task by task (a mirror
+  pair of bins against s1 at the lower bin, imaginary parts dropped at
+  DC and Nyquist; row 0's and row n1/2's own pairs in block 0 with one
+  task more), the inverse row DFTs and the conjugate twiddle written
+  back in place; pass 3's inverse column DFTs over strips and the maxima
+  of the blocks' maxima; one block for n <= 4096; against
+  irfft(whiten(s1 * conj(rfft(row)))) and ``bootstrap_peaks_plain``;
 - K10b: strips of S lanes, zero_top, the input scale, the
   conjugate twiddles of the inverse, output modes 0/1/2 and rep chains.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from pyaudiolocalization_tpu_torch.ops import cuda_fft as cf
 
@@ -116,19 +126,68 @@ def _pair_row(b, r, n1, pairs):
     return n1 // 2 if own == 0 else n1 - own
 
 
+def _pack(x, n):
+    """(rows, len) real rows -> (ceil(rows/2), n) complex rows 2c + i*2c+1,
+    zero-padded, as the kernels pack them while loading."""
+    rows, length = x.shape
+    xp = np.zeros((2 * ((rows + 1) // 2), n))
+    xp[:rows, :length] = x
+    return xp[0::2] + 1j * xp[1::2]
+
+
+def _split_tables(n, n1, n2):
+    """``stage_split_tables``: lo[r] = W_n^r (r < n1), hi[a] = W_n2^a."""
+    tab = _half_table(n)
+    return tab[:n1], _twiddle(tab, np.arange(n2) * n1)
+
+
+def _split_twiddle(lo, hi, e, n1):
+    """``split_twiddle``: W_n^e = W_n2^{e / n1} * W_n^{e mod n1}, e < n."""
+    assert e.max() < n1 * hi.shape[0]
+    return hi[e >> (n1.bit_length() - 1)] * lo[e & (n1 - 1)]
+
+
+def _cols_pass(z, n1, n2):
+    """K4a's pass 1 (``fft_real_cols``): strips c0 = b*S of columns j2 =
+    c0 + s; the strip holds point (j1, s) = z[n2*j1 + c0 + s] -> Y[k1, j2]
+    (packed, n1, n2) with the twiddle W_n^{j2 k1}."""
+    packed = z.shape[0]
+    strips = z.reshape(packed, n1, n2 // S, S).transpose(0, 2, 1, 3)
+    cols = block_fft(strips)                          # (packed, n2/S, n1, S)
+    k1 = np.arange(n1)[:, None]
+    j2 = (np.arange(n2 // S)[:, None, None] * S + np.arange(S))
+    lo, hi = _split_tables(n1 * n2, n1, n2)
+    yv = cols * _split_twiddle(lo, hi, j2 * k1, n1)
+    return yv.transpose(0, 2, 1, 3).reshape(packed, n1, n2)
+
+
+def _slot_rows(n1, S2):
+    """(n1 / S2, S2): the row k1 in slot r of pass-2 block b."""
+    return np.array([[_pair_row(b, r, n1, S2 // 2) for r in range(S2)]
+                     for b in range(n1 // S2)])
+
+
+def _partner(slot_rows, r, k2, n1, n2):
+    """The slot and k2 of bin n - k's packed value for slot r, k2 of the
+    pass-2 block (rows 0 and n1/2 are their own partners)."""
+    pairs = slot_rows.shape[1] // 2
+    row = slot_rows[:, :, None] + 0 * k2
+    pr = np.where((row == 0) | (row == n1 // 2), r,
+                  np.where(r < pairs, r + pairs, r - pairs)) + 0 * k2
+    pk = np.where(row == 0, (n2 - k2) & (n2 - 1), n2 - 1 - k2)
+    return row, pr, pk
+
+
 def fft_real_model(x, n):
     """K4a on (rows, len) real rows -> (rows, n/2 + 1), and the count of
     writes to each output bin."""
-    rows, length = x.shape
-    packed = (rows + 1) // 2
-    xp = np.zeros((2 * packed, n))
-    xp[:rows, :length] = x
-    z = xp[0::2] + 1j * xp[1::2]                      # packed while loading
+    rows = x.shape[0]
+    z = _pack(x, n)
+    packed = z.shape[0]
     bins = n // 2 + 1
     out = np.zeros((2 * packed, bins), complex)
     writes = np.zeros((2 * packed, bins), int)
     n1, n2 = cf.fft_real_split(n)
-    tab = _half_table(n)
     if n1 == 1:                                       # fft_real_block
         zf = block_fft(z[:, :, None])[..., 0]
         k = np.arange(bins)
@@ -137,34 +196,18 @@ def fft_real_model(x, n):
         writes += 1
         return out[:rows], writes[:rows]
     assert n1 * n2 == n and n1 >= n2 and n1 <= 1024 and n1 % 32 == 0
-    # Pass 1 (fft_real_cols): strips c0 = b*S of columns j2 = c0 + s; the
-    # strip holds point (j1, s) = z[n2*j1 + c0 + s].
-    strips = z.reshape(packed, n1, n2 // S, S).transpose(0, 2, 1, 3)
-    cols = block_fft(strips)                          # (packed, n2/S, n1, S)
-    k1 = np.arange(n1)[:, None]
-    j2 = (np.arange(n2 // S)[:, None, None] * S + np.arange(S))
-    e = j2 * k1                                       # (n2/S, n1, S), < n
-    assert e.max() < n
-    lo = tab[:n1]                                     # W_n^r, r < n1
-    hi = _twiddle(tab, np.arange(n2) * n1)            # W_n2^a, a < n2
-    yv = cols * hi[e >> (n1.bit_length() - 1)] * lo[e & (n1 - 1)]
-    y = yv.transpose(0, 2, 1, 3).reshape(packed, n1, n2)  # Y[k1, j2]
+    y = _cols_pass(z, n1, n2)
     # Pass 2 (fft_real_rows): block b holds rows pair_row(b, r), r < S2,
     # all blocks at once; then each (block, slot r, k2) of the epilogue.
     S2 = cf.fft_real_rows_strip(n2, packed)
-    pairs = S2 // 2
     nb, h2 = n1 // S2, n2 // 2
-    slot_rows = np.array([[_pair_row(b, r, n1, pairs) for r in range(S2)]
-                          for b in range(nb)])             # (nb, S2)
+    slot_rows = _slot_rows(n1, S2)                         # (nb, S2)
     buf = block_fft(y[:, slot_rows, :].transpose(0, 1, 3, 2))  # (.,nb,n2,S)
     b = np.arange(nb)[:, None, None]
     r = np.arange(S2)[None, :, None]
     k2 = np.arange(h2 + 1)[None, None, :]
-    row = slot_rows[:, :, None] + 0 * k2
+    row, pr, pk = _partner(slot_rows, r, k2, n1, n2)
     live = (k2 < h2) | (row == 0)          # bin n/2 is row 0's alone
-    pr = np.where((row == 0) | (row == n1 // 2), r,
-                  np.where(r < pairs, r + pairs, r - pairs)) + 0 * k2
-    pk = np.where(row == 0, (n2 - k2) & (n2 - 1), n2 - 1 - k2)
     b, r, k2 = (np.broadcast_to(a, row.shape) for a in (b, r, k2))
     zk = buf[:, b[live], k2[live], r[live]]
     zm = buf[:, b[live], pk[live], pr[live]]
@@ -173,6 +216,109 @@ def fft_real_model(x, n):
     out[1::2, k] = _split_bin(zk, zm, 1)
     np.add.at(writes, (slice(None), k), 1)
     return out[:rows], writes[:rows]
+
+
+def _whiten(a, b):
+    r = a * np.conj(b)
+    return r / (np.abs(r) + cf.PHAT_EPS)
+
+
+def _boot_pair(s1, zq, zm, q, n):
+    """``boot_pair``: bins q <= n/2 and n - q of the packed whitened
+    cross-spectrum from zq = Z[q] and zm = Z[(n - q) mod n]; imaginary
+    parts dropped at DC and Nyquist; the mirror as ``store_packed``."""
+    assert (q <= n // 2).all()
+    s = s1[q]
+    edge = (q == 0) | (q == n // 2)
+    wa = _whiten(s, _split_bin(zq, zm, 0))
+    wb = _whiten(s, _split_bin(zq, zm, 1))
+    wa, wb = np.where(edge, wa.real, wa), np.where(edge, wb.real, wb)
+    return wa + 1j * wb, np.conj(wa) + 1j * np.conj(wb)
+
+
+def _boot_tasks(b, S2, n1, n2):
+    """``boot_rows``' whitening tasks of block b: (slot, k2, row) of each
+    pair's first bin and (slot, k2) of its mirror, task t at r = t mod
+    S2/2 (row-fastest), k2 = t div S2/2; block 0 has one task more."""
+    pairs = S2 // 2
+    t = np.arange(pairs * n2 + (b == 0))
+    r, k2 = t % pairs, t // pairs
+    row = b * pairs + r
+    pr, pk = r + pairs, n2 - 1 - k2
+    zero = (row == 0) & (k2 <= n2 // 2)        # row 0, its own partner
+    mid = (row == 0) & (k2 > n2 // 2)          # row n1/2 in slot S2/2
+    pr = np.where(zero, 0, pr)
+    pk = np.where(zero, (n2 - k2) & (n2 - 1), pk)
+    r = np.where(mid, pairs, r)
+    k2 = np.where(mid, k2 - n2 // 2 - 1, k2)
+    pk = np.where(mid, n2 - 1 - k2, pk)
+    row = np.where(mid, n1 // 2, row)
+    return r, k2, row, pr, pk
+
+
+def bootstrap_peaks_model(s1, x, n, strip=S):
+    """K4b on (rows, len) real rows against s1 (n/2 + 1,) -> ((rows,)
+    maxima, (rows, n) correlations in natural order), following the
+    kernels: one block for n <= 4096 (``boot_block``), else K4a's pass 1,
+    ``boot_rows`` (``strip`` rows a block; the kernel holds kStrip = 16)
+    and ``boot_cols``.  Asserts that the whitening's tasks
+    cover every bin once (a pair's two bins, or a self-mirrored bin), that
+    pass 2 writes every row k1 once, and that its tasks read s1 at
+    consecutive bins."""
+    rows = x.shape[0]
+    z = _pack(x, n)
+    packed = z.shape[0]
+    n1, n2 = cf.fft_real_split(n)
+    if n1 == 1:                                       # boot_block
+        zf = block_fft(z[:, :, None])[..., 0]
+        q = np.arange(n // 2 + 1)
+        m = (n - q) & (n - 1)
+        zf[:, q], zf[:, m] = _boot_pair(s1, zf[:, q], zf[:, m], q, n)
+        natural = block_fft(zf[:, :, None], -1.0)[..., 0]
+        maxima = np.stack([natural.real.max(-1), natural.imag.max(-1)], -1)
+    else:
+        y = _cols_pass(z, n1, n2)
+        # Pass 2 (boot_rows): the forward row DFTs of each block's slots.
+        S2 = strip
+        nb = n1 // S2
+        slot_rows = _slot_rows(n1, S2)                     # (nb, S2)
+        buf = block_fft(y[:, slot_rows, :].transpose(0, 1, 3, 2))
+        # The whitening, block by block, one task a mirror pair.
+        seen = np.zeros(n, int)
+        for b in range(nb):
+            r, k2, row, pr, pk = _boot_tasks(b, S2, n1, n2)
+            assert (slot_rows[b, r] == row).all()
+            p = row + n1 * k2
+            pm = slot_rows[b, pr] + n1 * pk
+            assert ((p + pm) % n == 0).all()
+            np.add.at(seen, p, 1)
+            np.add.at(seen, pm[pm != p], 1)
+            low = p <= n // 2
+            q = np.where(low, p, pm)
+            assert (np.abs(np.diff(q[:S2 // 2 - (b == 0)])) == 1).all()
+            zr, zp = buf[:, b, k2, r], buf[:, b, pk, pr]
+            yq, ym = _boot_pair(s1, np.where(low, zr, zp),
+                                np.where(low, zp, zr), q, n)
+            buf[:, b, pk, pr] = np.where(low, ym, yq)
+            buf[:, b, k2, r] = np.where(low, yq, ym)   # self pairs: yq
+        assert np.array_equal(seen, np.ones(n, int))
+        # The inverse row DFTs, times W_n^{-j2 k1}, written back in place.
+        inv = block_fft(buf, -1.0)                     # (packed, nb, n2, S2)
+        lo, hi = _split_tables(n, n1, n2)
+        e = np.arange(n2)[None, :, None] * slot_rows[:, None, :]
+        w = np.conj(_split_twiddle(lo, hi, e, n1))
+        assert np.array_equal(np.bincount(slot_rows.ravel(), minlength=n1),
+                              np.ones(n1, int))
+        y[:, slot_rows, :] = (inv * w).transpose(0, 1, 3, 2)
+        # Pass 3 (boot_cols): strips of S columns j2, the inverse column
+        # DFTs; each block's maxima, then their maximum (the atomics).
+        strips = y.reshape(packed, n1, n2 // S, S).transpose(0, 2, 1, 3)
+        cols = block_fft(strips, -1.0)                 # (packed, n2/S, n1, S)
+        maxima = np.stack([cols.real.max(axis=(2, 3)).max(-1),
+                           cols.imag.max(axis=(2, 3)).max(-1)], -1)
+        natural = cols.transpose(0, 2, 1, 3).reshape(packed, n)
+    corr = np.stack([natural.real, natural.imag], 1).reshape(-1, n) / n
+    return maxima.reshape(-1)[:rows] / n, corr[:rows]
 
 
 def row_stages_model(xr, xi, n2, inverse=False, rep=1, scale=1.0,
@@ -229,6 +375,58 @@ def test_fft_real_schedule_wide_strips(n, strip, monkeypatch):
     want = np.fft.rfft(x, n=n)
     assert np.array_equal(writes, np.ones_like(writes))
     assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
+
+
+def _boot_case(rng, rows, n):
+    """s1 (n/2 + 1,) random complex (imaginary parts at DC and Nyquist
+    too) and rows of len < n."""
+    s1 = rng.standard_normal(n // 2 + 1) + 1j * rng.standard_normal(
+        n // 2 + 1)
+    return s1, _rows(rng, rows, max(1, n - n // 4 - 1))
+
+
+def _boot_reference(s1, x, n):
+    return np.fft.irfft(_whiten(s1[None, :], np.fft.rfft(x, n=n)), n=n)
+
+
+def _check_boot(s1, x, n, strip=S):
+    peaks, corr = bootstrap_peaks_model(s1, x, n, strip)
+    want = _boot_reference(s1, x, n)
+    tol = 1e-9 * np.abs(want).max()
+    assert np.abs(corr - want).max() < tol, n
+    assert np.abs(peaks - want.max(-1)).max() < tol, n
+    plain = cf.bootstrap_peaks_plain(torch.from_numpy(s1), torch.from_numpy(x),
+                                     n).numpy()
+    assert np.abs(peaks - plain).max() < tol, n
+
+
+@pytest.mark.parametrize("bits", range(3, 18))
+def test_bootstrap_schedule_matches_irfft(bits):
+    """K4b's index maps at every n from 8 to 2^17 (one block up to 4096,
+    the split from 8192) at 1, 2 and 3 rows: the correlations and their
+    maxima against irfft(whiten(s1 * conj(rfft(row)))) and against
+    ``bootstrap_peaks_plain``."""
+    n = 1 << bits
+    rng = np.random.default_rng(100 + bits)
+    for rows in (1, 2, 3):
+        _check_boot(*_boot_case(rng, rows, n), n)
+
+
+def test_bootstrap_schedule_largest_split():
+    """2^20, the largest split (1024 x 1024), at one row."""
+    n = cf.FFT_REAL_MAX
+    _check_boot(*_boot_case(np.random.default_rng(20), 1, n), n)
+
+
+@pytest.mark.parametrize("n", [8192, 65536, 131072, 1 << 18])
+@pytest.mark.parametrize("strip", [16, 32, 64])
+def test_bootstrap_schedule_strips(n, strip):
+    """Pass 2's task map (mirror pairs, row 0's and row n1/2's own pairs in
+    block 0, the extra task) holds for strips of 16, 32 and 64 rows; the
+    kernel holds 16 (kStrip), the production lengths' n2 = 256 at 65,536
+    and 131,072."""
+    _check_boot(*_boot_case(np.random.default_rng(n + strip), 3, n), n,
+                strip)
 
 
 @pytest.mark.parametrize("n", [64, 128, 4096, 8192])

@@ -27,14 +27,20 @@ Every kernel case's first (warm-up) call is held against its plain twin on
 the same inputs, within ``rowdft.TRANSFORM_TOL`` of max|twin| (the chain
 within ``rowdft.CHAIN_TOL``, K4a within ``K4A_TOL``); a miss raises.
 ``k4a`` times K4a against ``torch.fft.rfft`` at the production paths'
-shapes (``K4A_SHAPES``).
+shapes (``K4A_SHAPES``).  ``boot`` (``--boot``, alone) times K4b at the
+permutation null's shapes (``BOOT_SHAPES``) and K7 against ``torch.sgn``
+at one scene's spectrum, by CUDA events and in device time with the
+device kernels a call runs, and the host time of each step of a wrapper's
+launch path over 10,000 calls (``host_steps``).
 
 It imports numpy and torch only.  Run from the repository root on the
 machine with the card:
 
-    python tools/torch_rowdft_bench.py [--reps 5] [--k4a]
+    python tools/torch_rowdft_bench.py [--reps 5] [--k4a | --boot]
 
-``chip_smoke.py`` runs it once as its phase 7 (``run``).
+``chip_smoke.py`` runs it once as its phase 7 (``run``).  To A/B two
+versions of the package in one call, run this file from a copy of each
+tree in turns (it imports the package of the tree it lies in).
 """
 
 from __future__ import annotations
@@ -62,6 +68,15 @@ CHAIN_MIN_N2 = 512
 K4A_TOL = 5e-6
 K4A_SHAPES = ((1, 44100, 65536), (2, 44100, 65536), (1, 44100, 131072),
               (1024, 65536, 65536))
+# K4b against its twin, absolute (peaks of correlations bounded by 1), at
+# the permutation null's shapes (rows, len, nfft): the main path's and
+# no_gate's lengths, two rows (16-row strips) and one block; K7 at one
+# scene's exact-length spectrum; the calls a host step is timed over.
+BOOT_TOL = 1e-6
+BOOT_SHAPES = ((1000, 44100, 65536), (1000, 44100, 131072),
+               (2, 44100, 65536), (999, 3000, 4096))
+K7_SHAPE = (1, 44100)
+HOST_CALLS = 10_000
 
 
 def time_ms(fn, reps: int, loops: int = 3):
@@ -195,8 +210,9 @@ def device_ms(fn, calls: int = 20) -> dict:
     """Device time per call of ``fn`` by kernel (the sum of each kernel's
     durations in a ``torch.profiler`` trace of CUDA activity over
     ``calls`` warm calls, divided by ``calls``), with their total under
-    "total".  Unlike CUDA events around a loop it leaves out the host's
-    time between launches."""
+    "total" and the device kernels a call runs under "kernels".  Unlike
+    CUDA events around a loop it leaves out the host's time between
+    launches."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -211,13 +227,22 @@ def device_ms(fn, calls: int = 20) -> dict:
         prof.export_chrome_trace(str(path))
         events = json.loads(path.read_text())["traceEvents"]
     out = {}
+    kernels = 0
     for e in events:
         if e.get("cat") == "kernel":
             name = e["name"].replace("(anonymous namespace)::", "")
             name = name.split("<")[0].split("(")[0].split("::")[-1].split()[-1]
             out[name] = out.get(name, 0.0) + e["dur"] / 1e3 / calls
+            kernels += 1
     out["total"] = sum(out.values())
+    out["kernels"] = kernels / calls
     return out
+
+
+def _split(dev: dict) -> str:
+    """"name ms, ..." of ``device_ms``'s kernels."""
+    return ", ".join(f"{k} {v:.4f}" for k, v in dev.items()
+                     if k not in ("total", "kernels"))
 
 
 def k4a(reps: int = 20, log=print) -> dict:
@@ -240,13 +265,104 @@ def k4a(reps: int = 20, log=print) -> dict:
         for name, fn in calls.items():
             res[f"{name}_device"] = device_ms(fn)
         out[(rows, length, nfft)] = res
-        split = ", ".join(f"{k} {v:.4f}" for k, v in
-                          res["k4a_device"].items() if k != "total")
         log(f"K4a {shape}: fft_real {res['k4a']:.4f} ms, torch.fft.rfft "
             f"{res['rfft']:.4f} ms ({res['k4a'] / res['rfft']:.2f}x); "
-            f"device fft_real {res['k4a_device']['total']:.4f} ms ({split}),"
-            f" torch.fft.rfft {res['rfft_device']['total']:.4f} ms")
+            f"device fft_real {res['k4a_device']['total']:.4f} ms "
+            f"({_split(res['k4a_device'])}), torch.fft.rfft "
+            f"{res['rfft_device']['total']:.4f} ms")
     return out
+
+
+def boot(reps: int = 10, log=print) -> dict:
+    """K4b against its twin at ``BOOT_SHAPES`` (permuted rows of one
+    signal, as the permutation null draws them) and K7 against its twin
+    and ``torch.sgn`` at ``K7_SHAPE``: CUDA-event ms per call (``time_ms``,
+    median of three loops), device ms per call by kernel and device
+    kernels per call (``device_ms``); then ``host_steps``.  Logs one line
+    per case and returns {case: {"ms", "device"}}."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for rows, length, nfft in BOOT_SHAPES:
+        sig = torch.randn(length, generator=gen, device=dev)
+        keys = torch.rand((rows, length), generator=gen, device=dev)
+        x = sig[torch.argsort(keys, dim=-1)].contiguous()
+        s1 = cf.fft_real_plain(torch.randn((1, length), generator=gen,
+                                           device=dev), nfft)[0].contiguous()
+        call = lambda: cf.bootstrap_peaks(s1, x, nfft)  # noqa: E731
+        got, ms = time_ms(call, reps)
+        err = float((got - cf.bootstrap_peaks_plain(s1, x, nfft)).abs()
+                    .max())
+        if not err <= BOOT_TOL:
+            raise AssertionError(f"K4b {rows} x {length} -> {nfft}: max "
+                                 f"|kernel - plain| = {err:.3e}")
+        res = {"ms": ms, "device": device_ms(call, 5)}
+        out[("k4b", rows, length, nfft)] = res
+        log(f"K4b {rows} x {length} -> {nfft}: {ms:.4f} ms; device "
+            f"{res['device']['total']:.4f} ms in "
+            f"{res['device']['kernels']:g} kernels a call "
+            f"({_split(res['device'])}); max |kernel - plain| {err:.2e}")
+        del x, got
+    spec = torch.complex(torch.randn(K7_SHAPE, generator=gen, device=dev),
+                         torch.randn(K7_SHAPE, generator=gen, device=dev))
+    check(f"K7 {K7_SHAPE}", cf.whiten(spec), cf.whiten_plain(spec), 1e-6)
+    for name, call in (("K7 whiten", lambda: cf.whiten(spec)),
+                       ("torch.sgn", lambda: torch.sgn(spec))):
+        res = {"ms": time_ms(call, 10 * reps)[1],
+               "device": device_ms(call, 50)}
+        out[(name,) + K7_SHAPE] = res
+        log(f"{name} {K7_SHAPE}: {res['ms']:.4f} ms by CUDA events; device "
+            f"{res['device']['total']:.4f} ms a call "
+            f"({_split(res['device'])})")
+    out["host"] = host_steps(spec, log)
+    return out
+
+
+def host_steps(spec: torch.Tensor, log=print, calls: int = HOST_CALLS):
+    """Host time per call (µs: ``time.perf_counter`` around ``calls``
+    calls, synchronized at both ends) of each step of a wrapper's launch
+    path, on K7 at ``spec``, and of the whole wrapper and ``torch.sgn``.
+    Returns {step: µs}."""
+    import time
+    lib = cf._library()
+    dev = spec.device
+    out = torch.empty_like(spec)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def guard():
+        with torch.cuda.device(dev):
+            pass
+
+    steps = {
+        "device check (_use_plain)": lambda: cf._use_plain(spec),
+        "contiguity and dtype checks": lambda: (
+            cf._check_contiguous("whiten", spec),
+            spec.dtype != torch.complex64),
+        "torch.cuda.device guard": guard,
+        "torch.cuda.current_device()": torch.cuda.current_device,
+        "current device (_cuda_getDevice)": torch._C._cuda_getDevice,
+        "Stream object (current_stream(dev).cuda_stream)":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "raw stream pointer (_cuda_getCurrentRawStream)":
+            lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+        "output allocation (empty_like)": lambda: torch.empty_like(spec),
+        "ctypes call of palt_whiten (enqueue)": lambda: lib.palt_whiten(
+            spec.data_ptr(), spec.numel(), cf.PHAT_EPS, out.data_ptr(),
+            stream),
+        "whole wrapper (cuda_fft.whiten)": lambda: cf.whiten(spec),
+        "torch.sgn": lambda: torch.sgn(spec),
+    }
+    res = {}
+    for name, step in steps.items():
+        step()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(calls):
+            step()
+        torch.cuda.synchronize()
+        res[name] = (time.perf_counter() - start) / calls * 1e6
+        log(f"host {name}: {res[name]:.3f} us a call ({calls} calls)")
+    return res
 
 
 def main() -> int:
@@ -254,6 +370,9 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--k4a", action="store_true",
                     help="also time K4a at the production shapes")
+    ap.add_argument("--boot", action="store_true",
+                    help="time only K4b and K7 at the production shapes, "
+                         "and the wrappers' host steps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_rowdft_bench: needs an NVIDIA card", file=sys.stderr)
@@ -264,9 +383,13 @@ def main() -> int:
     print(f"{smi}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
     cf.build()
+
     def log(msg):
         print(msg, flush=True)
 
+    if args.boot:
+        boot(2 * args.reps, log)
+        return 0
     run(args.reps, log)
     if args.k4a:
         k4a(4 * args.reps, log)
