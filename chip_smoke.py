@@ -12,9 +12,12 @@ Drives the port's main paths on ``cuda`` at full width (4 mics, 44.1 kHz,
    PyTorch call computes the same function, that call's time (K4a also
    at no_gate's 131,072, the single pair's two rows and 1024 rows against
    ``torch.fft.rfft``, with device times; K4b also at no_gate's 131,072
-   and two rows, with its device time and kernels per call; K7 also on a
-   view that starts one bin in, with its device time and
-   ``torch.sgn``'s);
+   and two rows, with its device time and kernels per call; K6 also at
+   131,072, each shape equal to K4b on the same draws, with its device
+   time and kernels per call, as K5, K3 and K2 at the sweep's and the
+   api's shapes; K3, K2 and K5 also at an odd mic count on the split, K5
+   at the api's scene, each within 1e-6 of K3 then K2; K7 also on a view
+   that starts one bin in, with its device time and ``torch.sgn``'s);
    for K10's three kernels (``ops/rowdft.py``) the cases phase 7 does not
    run: the
    inverse, rep = 8 and zero_top at n2 = 64 and 1024, the lane DFT's
@@ -104,6 +107,10 @@ MXU_TOOL = "tools/mxu_rowdft_bench.py"
 PALLAS = "pyaudiolocalization_tpu/ops/pallas_fft.py"
 PALLAS_KERNELS = "pyaudiolocalization_tpu/ops/pallas_kernels.py"
 NULL_DRAWS = 1000
+# Phase 3's cases added after their kernel's first slice: (kernel, tag).
+ADDED = {("delay_sum", "odd"), ("gcc_windowed", "odd"),
+         ("noise_bootstrap_peaks", "no_gate"), ("scene_windowed", "api"),
+         ("scene_windowed", "odd")}
 
 # name -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -219,13 +226,25 @@ def kernel_phase(cf, torch):
     from pyaudiolocalization_tpu_torch.ops.delay import fade_window
     from pyaudiolocalization_tpu_torch.ops.fftutils import next_pow2
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
+    # Cases added in a later slice (ADDED) draw from a stream of their own,
+    # so that adding a case leaves the inputs of every other case as they
+    # were.
+    streams = {False: torch.Generator(device=dev).manual_seed(0),
+               True: torch.Generator(device=dev).manual_seed(1)}
+    stream = [streams[False]]
+
+    def draw(kernel, tag):
+        stream[0] = streams[(kernel, tag) in ADDED]
 
     def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev)
+        return torch.randn(shape, generator=stream[0], device=dev)
 
     def rand(*shape):
-        return torch.rand(shape, generator=gen, device=dev)
+        return torch.rand(shape, generator=stream[0], device=dev)
+
+    def randint(*shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, generator=stream[0],
+                             dtype=torch.int32, device=dev)
 
     def pairs(m):
         pp = [(i, j) for i in range(m) for j in range(i + 1, m)]
@@ -238,11 +257,19 @@ def kernel_phase(cf, torch):
         gains = rand(b, m, paths)
         gains[..., 0] = 1.0  # the strongest path has gain 1 (scene_paths)
         snr = 20.0 + 20.0 * rand(b)
-        seeds = torch.randint(-2 ** 31, 2 ** 31, (b, 2), generator=gen,
-                              dtype=torch.int32, device=dev)
+        seeds = randint(b, 2)
         fade = fade_window(total, dtype=torch.float32,
                            device=dev)[:out].contiguous()
         return base, tau, gains.contiguous(), snr, seeds, fade
+
+    from pyaudiolocalization_tpu_torch.ops import noise as noise_ops
+    bench = _load_tool("torch_rowdft_bench")
+    device_ms = bench.device_ms
+
+    def log_device(name, fn, calls=5):
+        dev_k = device_ms(fn, calls)
+        log(f"{name} device time per call: {dev_k['total']:.4f} ms in "
+            f"{dev_k['kernels']:g} kernels ({bench._split(dev_k)})")
 
     results = {}
     reverb, multi = srp_specs()
@@ -263,7 +290,9 @@ def kernel_phase(cf, torch):
             "multi": (2 * MULTI_SCENES, 8, 1, multi.total_samples,
                       multi.num_samples, next_pow2(multi.total_samples),
                       False, False),
+            "odd": (3, 3, 5, 7000, 6000, 8192, True, True),
             "edge": (3, 3, 5, 3500, 3000, 4096, True, True)}.items():
+        draw("delay_sum", tag)
         base, tau, gains, snr, seeds, fade = scene_inputs(b, m, paths,
                                                           total, out)
         nz = (snr, seeds) if noise else (None, None)
@@ -278,6 +307,10 @@ def kernel_phase(cf, torch):
                                        fin, *nz),
             tol=2e-5, reps=3 if b > 1 else 20, scale_by_max=not fin,
             least=bound(nbytes, render_ops(b, m, paths, nfft, out, noise)))
+        if tag in ("main", "scene", "reverb"):
+            log_device(f"delay_sum[{tag}]",
+                       lambda: cf.delay_sum(base, tau, gains, nfft, out,
+                                            fade, fin, *nz))
         if tag == "main":
             results["delay_sum"] = res
 
@@ -316,7 +349,9 @@ def kernel_phase(cf, torch):
     for tag, (b, m, length, nfft, wq) in {
             "main": (SWEEP_SCENES, 4, N, NFFT, 6),
             "api": (1, 4, N, NFFT, 21),
+            "odd": (3, 3, 6000, 8192, 2),
             "edge": (2, 3, 3000, 4096, 2)}.items():
+        draw("gcc_windowed", tag)
         pi, pj = pairs(m)
         sig = randn(b, m, length).contiguous()
         mask = cf.band_mask(nfft, (300.0, 3400.0), FS, device=dev)
@@ -329,6 +364,9 @@ def kernel_phase(cf, torch):
             lambda: cf.gcc_windowed_plain(sig, pi, pj, nfft, wq, mask),
             tol=1e-6, reps=3 if b > 1 else 20,
             least=bound(nbytes, gcc_ops(b, m, p, nfft) + 3 * b * p * nfft))
+        if tag in ("main", "api"):
+            log_device(f"gcc_windowed[{tag}]",
+                       lambda: cf.gcc_windowed(sig, pi, pj, nfft, wq, mask))
         if tag == "main":
             results["gcc_windowed"] = res
 
@@ -337,8 +375,6 @@ def kernel_phase(cf, torch):
     # and an edge of one block; torch.fft.rfft is the library call.  The
     # device time per call (torch.profiler) is logged beside the CUDA-event
     # time, which a single row's host time between calls dominates.
-    bench = _load_tool("torch_rowdft_bench")
-    device_ms = bench.device_ms
     for tag, (rows_n, length, nfft) in {
             "main": (1, N, NFFT), "no_gate": (1, N, 2 * NFFT),
             "single_pair": (2, N, NFFT), "rows": (1024, NFFT, NFFT),
@@ -380,21 +416,22 @@ def kernel_phase(cf, torch):
             tol=1e-6, reps=3,
             least=bound(8 * (nfft // 2 + 1) + 4 * rows_n * (length + 1),
                         rows_n * (2 * _rfft_ops(nfft) + (nfft // 2) * 15)))
-        dev_k = device_ms(lambda: cf.bootstrap_peaks(s1, rows, nfft), 5)
-        log(f"bootstrap_peaks[{tag}] device time per call: "
-            f"{dev_k['total']:.4f} ms in {dev_k['kernels']:g} kernels "
-            f"({bench._split(dev_k)})")
+        log_device(f"bootstrap_peaks[{tag}]",
+                   lambda: cf.bootstrap_peaks(s1, rows, nfft))
         if tag == "main":
             results["bootstrap_peaks"] = res
 
     # K6: the noise null, 1000 draws of 44,100 samples (edge: an odd draw
     # count and n_samp <= nfft/2, the TPU kernel's pruned shape).  Bound:
     # K4b's transforms and whitening plus ~10 operations per uniform draw.
+    # K6 runs K4b's schedules with the draws made where they are read, so
+    # on the same draws (the twin's) its peaks must equal K4b's exactly.
     for tag, (rows_n, n_samp, nfft) in {"main": (NULL_DRAWS, N, NFFT),
+                                        "no_gate": (NULL_DRAWS, N, 2 * NFFT),
                                         "edge": (999, 1500, 4096)}.items():
+        draw("noise_bootstrap_peaks", tag)
         s1 = cf.fft_real_plain(randn(1, n_samp), nfft)[0].contiguous()
-        seeds = torch.randint(-2 ** 31, 2 ** 31, (rows_n, 2), generator=gen,
-                              dtype=torch.int32, device=dev)
+        seeds = randint(rows_n, 2)
         res = compare(
             f"noise_bootstrap_peaks[{tag}] draws={rows_n} n_samp={n_samp} "
             f"nfft={nfft}",
@@ -404,6 +441,16 @@ def kernel_phase(cf, torch):
             least=bound(8 * (nfft // 2 + 1) + 8 * rows_n + 4 * rows_n,
                         rows_n * (2 * _rfft_ops(nfft) + (nfft // 2) * 15
                                   + 10 * n_samp)))
+        got = cf.noise_bootstrap_peaks(s1, seeds, n_samp, nfft)
+        want = cf.bootstrap_peaks(s1, noise_ops.uniform(seeds, n_samp), nfft)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"noise_bootstrap_peaks[{tag}] departs from bootstrap_peaks "
+                f"on the same draws by {float((got - want).abs().max()):.3e}")
+        log(f"noise_bootstrap_peaks[{tag}] equals bootstrap_peaks on the "
+            "same draws")
+        log_device(f"noise_bootstrap_peaks[{tag}]",
+                   lambda: cf.noise_bootstrap_peaks(s1, seeds, n_samp, nfft))
         if tag == "main":
             results["noise_bootstrap_peaks"] = res
 
@@ -450,10 +497,16 @@ def kernel_phase(cf, torch):
         if tag == "main":
             results["whitened_corr"] = res
 
-    # K5: the whole scene.  Main: the sweep's 512 scenes; edge: out == nfft.
+    # K5: the whole scene.  Main: the sweep's 512 scenes; the api's scene
+    # (22 paths, wq 21) and an odd mic count on the split; edge: out ==
+    # nfft on the passes.  Fused and split must agree to 1e-6 with equal
+    # argmax: they run the same stage code.
     for tag, (b, m, paths, total, out, nfft, wq) in {
             "main": (SWEEP_SCENES, 4, 1, 44356, N, NFFT, 6),
+            "api": (1, 4, 22, 50292, N, NFFT, 21),
+            "odd": (3, 3, 2, 7000, 6000, 8192, 2),
             "edge": (2, 2, 2, 1024, 1024, 1024, 2)}.items():
+        draw("scene_windowed", tag)
         pi, pj = pairs(m)
         base, tau, gains, snr, seeds, fade = scene_inputs(b, m, paths,
                                                           total, out)
@@ -482,6 +535,11 @@ def kernel_phase(cf, torch):
         if gap > 1e-6:
             raise AssertionError(f"scene_windowed[{tag}] departs from the "
                                  f"split kernels by {gap:.3e}")
+        if tag in ("main", "api"):
+            log_device(f"scene_windowed[{tag}]",
+                       lambda: cf.scene_windowed(base, tau, gains, pi, pj,
+                                                 nfft, out, wq, fade, mask,
+                                                 snr, seeds), 3)
         if tag == "main":
             results["scene_windowed"] = res
     start = time.perf_counter()

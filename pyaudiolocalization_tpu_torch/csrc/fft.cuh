@@ -11,8 +11,9 @@
 //    shared memory a block can hold, so every pass streams the rows
 //    through device memory (and the 50 MB L2): 16 bytes per point per
 //    pass, about 16 * log2(n) bytes per point and transform, and one
-//    launch per pass.  K1, K2, K3, K5, K6 and K9 (and K4b above 2^20)
-//    run on it; they fuse their first or last pass into a prologue or
+//    launch per pass.  K1 and K9 run on it, K2, K3 and K5 up to 4096
+//    points and where their split's strips do not fit, K4b and K6 above
+//    2^20; they fuse their first or last pass into a prologue or
 //    epilogue.
 //
 // 2. On-chip sub-transforms (`block_fft`): one block transforms S
@@ -26,9 +27,10 @@
 //    caller loads the strip with coalesced reads and hands the result to
 //    its own epilogue, so a launch moves 16 bytes per complex point (8 in,
 //    8 out), not 16 per point per pass.  A longer row is a four-step
-//    product n = n1 * n2 of two such launches (K4a; K4b runs it forward
-//    and back in three, the middle one holding the rows for both
-//    directions); the length-n2 rows of a (n2, 128) plane are one (K10b).
+//    product n = n1 * n2 of two such launches (K4a; K4b, K6, and K3's
+//    render and K2's GCC stages, both of them in K5, run it forward and
+//    back in three, the middle one holding the rows for both directions);
+//    the length-n2 rows of a (n2, 128) plane are one (K10b).
 //    Bound: device memory, one read and one write per launch.
 #pragma once
 
@@ -107,9 +109,12 @@ __device__ __forceinline__ float2* fft_shared() {
   return palt_fft_smem;
 }
 
-// Lets Kernel take the device's whole opt-in shared memory (the launch
-// asks for what it uses), once per device: the attribute call costs host
-// time that a one-row transform would pay on every call.
+// Lets Kernel take the device's whole opt-in shared memory beside its
+// static shared memory (the launch asks for what it uses), once per
+// device: the attribute call costs host time that a one-row transform
+// would pay on every call.  A failure is returned and also cleared from
+// the runtime's last error, so that it does not surface again in a later
+// launch's check.
 template <auto Kernel>
 inline cudaError_t allow_smem() {
   static bool done[64] = {};
@@ -117,12 +122,16 @@ inline cudaError_t allow_smem() {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
   int bytes = 0;
+  cudaFuncAttributes attr;
   err = cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, Kernel);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(
-        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    err = cudaFuncSetAttribute(Kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes - (int)attr.sharedSizeBytes);
   if (err == cudaSuccess && dev < 64) done[dev] = true;
+  if (err != cudaSuccess) cudaGetLastError();
   return err;
 }
 

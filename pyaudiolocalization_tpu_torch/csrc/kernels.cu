@@ -272,11 +272,93 @@ __device__ __forceinline__ float2 split_twiddle(const float2* lo,
   return cmul(hi[e >> (__ffs(n1) - 1)], lo[e & (n1 - 1)]);
 }
 
+// Loaders of the forward passes: `load.row(c)` gives point t (< n) of
+// packed row c, rows 2c and 2c+1 as its real and imaginary parts, zero
+// from the rows' length on and in the imaginary part of an odd count's
+// last packed row.  A loader makes every point of a row the same whichever
+// schedule reads it, so kernels that differ only in their loader compute
+// the same bits from the same values.
+
+// Real rows x (rows, len), row-major (K4a, K4b, K2, the render's bases).
+struct RowLoad {
+  const float* x;
+  int rows;
+  int len;
+  struct Row {
+    const float* xa;
+    int len;
+    bool two;
+    __device__ __forceinline__ float2 operator()(int t) const {
+      const bool live = t < len;
+      return make_float2(live ? xa[t] : 0.0f,
+                         live && two ? xa[len + t] : 0.0f);
+    }
+  };
+  __device__ __forceinline__ Row row(int c) const {
+    return {x + (size_t)(2 * c) * len, len, 2 * c + 1 < rows};
+  }
+};
+
+// Point t of packed row (draw a) + i*(draw b): for t < n_samp the uniform
+// [-0.5, 0.5) sample t of each draw's Philox stream (key = the draw's two
+// seed words as uint32, counter = t); zero from n_samp on.
+__device__ __forceinline__ float2 noise_point(int t, int n_samp, bool two,
+                                              uint32_t a0, uint32_t a1,
+                                              uint32_t b0, uint32_t b1) {
+  if (t >= n_samp) return make_float2(0.0f, 0.0f);
+  return make_float2(palt::philox_uniform((uint32_t)t, a0, a1),
+                     two ? palt::philox_uniform((uint32_t)t, b0, b1) : 0.0f);
+}
+
+// K6's draws, made where they are read: `rows` draws of n_samp samples
+// keyed by seeds (rows, 2); the rows never exist in device memory.
+struct NoiseLoad {
+  const int* seeds;
+  int rows;
+  int n_samp;
+  struct Row {
+    uint32_t a0, a1, b0, b1;
+    int n_samp;
+    bool two;
+    __device__ __forceinline__ float2 operator()(int t) const {
+      return noise_point(t, n_samp, two, a0, a1, b0, b1);
+    }
+  };
+  __device__ __forceinline__ Row row(int c) const {
+    const bool two = 2 * c + 1 < rows;
+    return {(uint32_t)seeds[4 * c], (uint32_t)seeds[4 * c + 1],
+            two ? (uint32_t)seeds[4 * c + 2] : 0u,
+            two ? (uint32_t)seeds[4 * c + 3] : 0u, n_samp, two};
+  }
+};
+
+// Rows already packed two to a complex row z (ceil(rows/2), n), zero-padded
+// to n (K5's finalized signals, written in place by `render_finalize`).
+// May alias the pass's output: a column pass reads and writes one strip.
+struct PackedLoad {
+  const float2* z;
+  int rows;
+  int n;
+  struct Row {
+    const float2* zc;
+    bool two;
+    __device__ __forceinline__ float2 operator()(int t) const {
+      const float2 v = zc[t];
+      return make_float2(v.x, two ? v.y : 0.0f);
+    }
+  };
+  __device__ __forceinline__ Row row(int c) const {
+    return {z + (size_t)c * n, 2 * c + 1 < rows};
+  }
+};
+
 // Pass 1.  Grid (n2 / kStrip column strips, packed rows).  The twiddle
-// W_n^{j2 k1} from the two tables of `stage_split_tables`.
+// W_n^{j2 k1} from the two tables of `stage_split_tables`.  The block
+// writes the strip it read, so y may be the loader's own buffer.
+template <class Load>
 __global__ void __launch_bounds__(1024)
-fft_real_cols(const float* __restrict__ x, int rows, int len, int n1, int n2,
-              const float2* __restrict__ tw, float2* __restrict__ y) {
+fft_real_cols(Load load, int n1, int n2, const float2* __restrict__ tw,
+              float2* y) {
   using palt::kElems;
   using palt::kStrip;
   float2* stw = palt::fft_shared();
@@ -286,9 +368,7 @@ fft_real_cols(const float* __restrict__ x, int rows, int len, int n1, int n2,
   const int n = n1 * n2;
   const int c = blockIdx.y;
   const int c0 = blockIdx.x * kStrip;
-  const bool two = 2 * c + 1 < rows;
-  const float* xa = x + (size_t)(2 * c) * len;
-  const float* xb = xa + len;
+  const auto src = load.row(c);
   palt::stage_twiddles(stw, tw, n1, n2);
   stage_split_tables(lo, hi, tw, n1, n2);
   const int total = n1 * kStrip;
@@ -297,8 +377,7 @@ fft_real_cols(const float* __restrict__ x, int rows, int len, int n1, int n2,
   for (int u = 0; u < kElems; ++u) {
     const int idx = threadIdx.x + u * blockDim.x;
     const int t = (idx / kStrip) * n2 + c0 + idx % kStrip;
-    const bool live = idx < total && t < len;
-    v[u] = make_float2(live ? xa[t] : 0.0f, live && two ? xb[t] : 0.0f);
+    v[u] = idx < total ? src(t) : make_float2(0.0f, 0.0f);
   }
 #pragma unroll
   for (int u = 0; u < kElems; ++u) {
@@ -313,6 +392,20 @@ fft_real_cols(const float* __restrict__ x, int rows, int len, int n1, int n2,
     yc[(size_t)k1 * n2 + j2] =
         cmul(buf[idx], split_twiddle(lo, hi, j2 * k1, n1));
   }
+}
+
+// Pass 1 over `packed` rows of load into y.
+template <class Load>
+cudaError_t cols_launch(Load load, int packed, int n1, int n2,
+                        const float2* tw, float2* y, cudaStream_t s) {
+  const int smem =
+      (n1 / 2 + n1 + n2 + n1 * palt::kStrip) * (int)sizeof(float2);
+  const cudaError_t err = palt::allow_smem<fft_real_cols<Load>>();
+  if (err != cudaSuccess) return err;
+  fft_real_cols<Load><<<dim3(n2 / palt::kStrip, packed),
+                        palt::fft_threads(n1, palt::kStrip), smem, s>>>(
+      load, n1, n2, tw, y);
+  return cudaGetLastError();
 }
 
 // Pass 2.  Grid (n1 / S blocks of S / 2 rows and their partners, packed
@@ -513,7 +606,7 @@ __global__ void last_pass_window(const float2* __restrict__ in,
   }
 }
 
-// ---- K4b: bootstrap null peaks -------------------------------------------
+// ---- K4b / K6: bootstrap null peaks --------------------------------------
 //
 // Per packed row z = a + i*b (rows 2c, 2c+1): the forward transform, each
 // real row's spectrum whitened against s1 and re-packed as one Hermitian
@@ -531,8 +624,10 @@ __global__ void last_pass_window(const float2* __restrict__ in,
 // not depend on where a sample lies, so the output of the inverse is never
 // put in natural order.  For n <= 4096 one block holds the packed row
 // (`boot_block`); above 2^20 (beyond `block_fft`'s 1024 x 1024) the
-// radix-2 passes of `boot_stage` run instead.  Bound: device memory, one
-// read of the rows and two reads and two writes of the packed buffer.
+// radix-2 passes of `boot_stage` run instead.  K6 is the same pipeline
+// with its rows drawn by the loader (`NoiseLoad`) where K4b reads them
+// (`RowLoad`).  Bound: device memory, one read of the rows and two reads
+// and two writes of the packed buffer.
 
 // In place, bins q <= n/2 (at zq) and n - q (at zm; the same place for q
 // = 0 and n/2) of the packed forward spectrum -> the packed whitened
@@ -569,9 +664,10 @@ __device__ __forceinline__ void atomic_max_float(float* out, float v) {
 
 // n <= 4096: one block per packed row (at most 256 threads, two blocks an
 // SM with up to 128 registers a thread), every step in shared memory.
+template <class Load>
 __global__ void __launch_bounds__(256, 2)
-boot_block(const float2* __restrict__ s1, const float* __restrict__ x,
-           int rows, int len, int n, float eps, const float2* __restrict__ tw,
+boot_block(const float2* __restrict__ s1, Load load, int rows, int n,
+           float eps, const float2* __restrict__ tw,
            float* __restrict__ out) {
   using palt::kElems;
   float2* stw = palt::fft_shared();
@@ -579,15 +675,13 @@ boot_block(const float2* __restrict__ s1, const float* __restrict__ x,
   float* red = reinterpret_cast<float*>(buf + n);
   const int c = blockIdx.x;
   const bool two = 2 * c + 1 < rows;
-  const float* xa = x + (size_t)(2 * c) * len;
-  const float* xb = xa + len;
+  const auto src = load.row(c);
   palt::stage_twiddles(stw, tw, n, 1);
   float2 v[kElems];
 #pragma unroll
   for (int u = 0; u < kElems; ++u) {
     const int t = threadIdx.x + u * blockDim.x;
-    const bool live = t < len && t < n;
-    v[u] = make_float2(live ? xa[t] : 0.0f, live && two ? xb[t] : 0.0f);
+    v[u] = t < n ? src(t) : make_float2(0.0f, 0.0f);
   }
 #pragma unroll
   for (int u = 0; u < kElems; ++u) {
@@ -613,43 +707,66 @@ boot_block(const float2* __restrict__ s1, const float* __restrict__ x,
   }
 }
 
-// Pass 2.  Grid (n1 / S blocks, packed rows), S = kStrip rows k1 of K4a's
-// pass 2 a block (half of them the partners n1 - k1 of the other half):
-// forward row DFTs; the whitening, one task a mirror pair of bins (the
-// maps of `fft_real_rows`): bin (r, k2) of a first-half slot (row k1 <
-// n1/2) with bin (r + S/2, n2 - 1 - k2) of row n1 - k1, threads
-// row-fastest so that s1's reads run over consecutive bins; slot 0 of
-// block 0 takes row 0's pairs (k2, -k2 mod n2) for k2 <= n2/2 and then,
-// with one task more, row n1/2's (q, n2 - 1 - q) in slot S/2; inverse row
-// DFTs; times W_n^{-j2 k1}; written back in place (the block owns its
-// rows).  Block 0 of each packed row sets its two maxima to -inf for
-// pass 3.  The rows go back whole, so the strip's width does not set the
-// length of the output's runs as in K4a's pass 2: 16 rows keep a block
-// at n2 threads, and at n2 <= 256 (kMaxThreads 256) two blocks an SM
-// with up to 128 registers a thread, against spills at 64.
-template <int kMaxThreads, int kMinBlocks>
-__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
-boot_rows(const float2* __restrict__ s1, int rows, int n1, int n2, float eps,
-          const float2* __restrict__ tw, float2* y, float* __restrict__ out) {
-  using palt::kElems;
-  constexpr int S = palt::kStrip;
-  constexpr int kPairs = S / 2;
-  float2* stw = palt::fft_shared();
-  float2* lo = stw + (n2 >> 1);
-  float2* hi = lo + n1;
-  float2* buf = hi + n2;
-  const int ld = n2 + 1;  // odd sequence stride: conflict-free columns
-  const int n = n1 * n2;
-  const int c = blockIdx.y;
-  const int b = blockIdx.x;
-  if (b == 0 && threadIdx.x == 0) {
-    out[2 * c] = -INFINITY;
-    if (2 * c + 1 < rows) out[2 * c + 1] = -INFINITY;
+// ---- row passes of the split (K4b's, the render's and the GCC's) ---------
+//
+// A row pass holds S = kStrip rows k1 of a packed row's pass-1 output Y
+// (n1 x n2) in a strip of shared memory, sequence stride ld = n2 + 1 (odd:
+// conflict-free columns): block b's slot r holds row pair_row(b, r), half
+// of them the partners n1 - k1 of the other half, so that every bin's
+// mirror n - k lies in the same block.  Up to S * n2 threads.
+
+// Mirror pair t of a row pass's block b (t < pair_tasks(b, n2)), the maps
+// of `fft_real_rows`: bin (r, k2) of a first-half slot (row k1 < n1/2)
+// with bin (r + S/2, n2 - 1 - k2) of row n1 - k1, threads row-fastest so
+// that reads indexed by the bin run over consecutive bins; slot 0 of block
+// 0 takes row 0's pairs (k2, -k2 mod n2) for k2 <= n2/2 and then, with one
+// task more, row n1/2's (q, n2 - 1 - q) in slot S/2.  q <= n/2 is the
+// lower bin; zq and zm are the strip offsets of bins q and n - q (the same
+// for q = 0 and n/2, DC and Nyquist).
+struct PairTask {
+  int q;
+  int zq;
+  int zm;
+};
+
+__device__ __forceinline__ int pair_tasks(int b, int n2) {
+  return (palt::kStrip / 2) * n2 + (b == 0);
+}
+
+__device__ __forceinline__ PairTask pair_task(int t, int b, int n1, int n2,
+                                              int ld) {
+  constexpr int kPairs = palt::kStrip / 2;
+  int r = t % kPairs;
+  int k2 = t / kPairs;
+  int row = b * kPairs + r;
+  int pr = r + kPairs;
+  int pk = n2 - 1 - k2;
+  if (row == 0) {
+    if (k2 <= (n2 >> 1)) {  // row 0 is its own partner
+      pr = 0;
+      pk = (n2 - k2) & (n2 - 1);
+    } else {  // row n1/2, in slot S/2, is its own partner
+      r = pr = kPairs;
+      row = n1 / 2;
+      k2 -= (n2 >> 1) + 1;
+      pk = n2 - 1 - k2;
+    }
   }
-  palt::stage_twiddles(stw, tw, n2, n1);
-  stage_split_tables(lo, hi, tw, n1, n2);
-  float2* yc = y + (size_t)c * n;
-  const int total = S * n2;
+  const int p = row + n1 * k2;
+  const int at = r * ld + k2;
+  const int mirror = pr * ld + pk;
+  if (p <= ((n1 * n2) >> 1)) return {p, at, mirror};
+  return {n1 * n2 - p, mirror, at};
+}
+
+// Strip <- rows pair_row(b, r), r < kStrip, of yc (n1 x n2), every load
+// of a thread in flight before its first store.
+__device__ __forceinline__ void load_rows(const float2* yc, float2* buf,
+                                          int b, int n1, int n2) {
+  using palt::kElems;
+  constexpr int kPairs = palt::kStrip / 2;
+  const int ld = n2 + 1;
+  const int total = palt::kStrip * n2;
   const int shift = __ffs(n2) - 1;
   float2 v[kElems];
 #pragma unroll
@@ -664,34 +781,18 @@ boot_rows(const float2* __restrict__ s1, int rows, int n1, int n2, float eps,
     const int idx = threadIdx.x + u * blockDim.x;
     if (idx < total) buf[(idx >> shift) * ld + (idx & (n2 - 1))] = v[u];
   }
-  palt::block_fft<S>(buf, 1, ld, n2, stw, 1.0f);
-  const int tasks = kPairs * n2 + (b == 0);
-  for (int t = threadIdx.x; t < tasks; t += blockDim.x) {
-    int r = t % kPairs;
-    int k2 = t / kPairs;
-    int row = b * kPairs + r;
-    int pr = r + kPairs;
-    int pk = n2 - 1 - k2;
-    if (row == 0) {
-      if (k2 <= (n2 >> 1)) {  // row 0 is its own partner
-        pr = 0;
-        pk = (n2 - k2) & (n2 - 1);
-      } else {  // row n1/2, in slot S/2, is its own partner
-        r = pr = kPairs;
-        row = n1 / 2;
-        k2 -= (n2 >> 1) + 1;
-        pk = n2 - 1 - k2;
-      }
-    }
-    const int p = row + n1 * k2;
-    float2* zr = buf + r * ld + k2;
-    float2* zp = buf + pr * ld + pk;
-    if (p <= (n >> 1))
-      boot_pair(s1, zr, zp, p, n, eps);
-    else
-      boot_pair(s1, zp, zr, n - p, n, eps);
-  }
-  palt::block_fft<S>(buf, 1, ld, n2, stw, -1.0f);
+}
+
+// yc rows pair_row(b, r) <- the strip's inverse row DFTs times W_n^{-j2
+// k1} (the tables of `stage_split_tables`).
+__device__ __forceinline__ void store_rows(const float2* buf, float2* yc,
+                                           const float2* lo,
+                                           const float2* hi, int b, int n1,
+                                           int n2) {
+  constexpr int kPairs = palt::kStrip / 2;
+  const int ld = n2 + 1;
+  const int total = palt::kStrip * n2;
+  const int shift = __ffs(n2) - 1;
   for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
     const int r = idx >> shift;
     const int j2 = idx & (n2 - 1);
@@ -702,24 +803,15 @@ boot_rows(const float2* __restrict__ s1, int rows, int n1, int n2, float eps,
   }
 }
 
-// Pass 3, pass 1 mirrored.  Grid (n2 / kStrip column strips, packed
-// rows): the inverse n1-point DFTs down the strip's columns give samples
-// n2*j1 + j2 of the packed inverse; the block's maxima of their real and
-// imaginary parts, times 1/n, go into out[2c] and out[2c + 1]
-// (`atomic_max_float`).
-__global__ void __launch_bounds__(1024)
-boot_cols(const float2* __restrict__ y, int rows, int n1, int n2,
-          const float2* __restrict__ tw, float* out) {
+// The column strip c0..c0 + kStrip - 1 of yc (n1 x n2) and its inverse
+// n1-point DFTs: buf[j1 * kStrip + s] = sample n2*j1 + c0 + s of the
+// packed inverse, unscaled (pass 1 mirrored; stw: the n1-point
+// sub-twiddles).
+__device__ __forceinline__ void cols_inverse(const float2* yc, float2* buf,
+                                             const float2* stw, int n1,
+                                             int n2, int c0) {
   using palt::kElems;
   using palt::kStrip;
-  float2* stw = palt::fft_shared();
-  float2* buf = stw + (n1 >> 1);
-  float* red = reinterpret_cast<float*>(buf + n1 * kStrip);
-  const int n = n1 * n2;
-  const int c = blockIdx.y;
-  const int c0 = blockIdx.x * kStrip;
-  palt::stage_twiddles(stw, tw, n1, n2);
-  const float2* yc = y + (size_t)c * n;
   const int total = n1 * kStrip;
   float2 v[kElems];
 #pragma unroll
@@ -734,6 +826,64 @@ boot_cols(const float2* __restrict__ y, int rows, int n1, int n2,
     if (idx < total) buf[idx] = v[u];
   }
   palt::block_fft<kStrip>(buf, kStrip, 1, n1, stw, -1.0f);
+}
+
+// Pass 2.  Grid (n1 / S blocks, packed rows), S = kStrip rows k1 of K4a's
+// pass 2 a block: forward row DFTs; the whitening, one task a mirror pair
+// of bins (`pair_task`), so that s1's reads run over consecutive bins;
+// inverse row DFTs; times W_n^{-j2 k1}; written back in place (the block
+// owns its rows).  Block 0 of each packed row sets its two maxima to -inf
+// for pass 3.  The rows go back whole, so the strip's width does not set
+// the length of the output's runs as in K4a's pass 2: 16 rows keep a
+// block at n2 threads, and at n2 <= 256 (kMaxThreads 256) two blocks an
+// SM with up to 128 registers a thread, against spills at 64.
+template <int kMaxThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+boot_rows(const float2* __restrict__ s1, int rows, int n1, int n2, float eps,
+          const float2* __restrict__ tw, float2* y, float* __restrict__ out) {
+  float2* stw = palt::fft_shared();
+  float2* lo = stw + (n2 >> 1);
+  float2* hi = lo + n1;
+  float2* buf = hi + n2;
+  const int ld = n2 + 1;
+  const int n = n1 * n2;
+  const int c = blockIdx.y;
+  const int b = blockIdx.x;
+  if (b == 0 && threadIdx.x == 0) {
+    out[2 * c] = -INFINITY;
+    if (2 * c + 1 < rows) out[2 * c + 1] = -INFINITY;
+  }
+  palt::stage_twiddles(stw, tw, n2, n1);
+  stage_split_tables(lo, hi, tw, n1, n2);
+  float2* yc = y + (size_t)c * n;
+  load_rows(yc, buf, b, n1, n2);
+  palt::block_fft<palt::kStrip>(buf, 1, ld, n2, stw, 1.0f);
+  const int tasks = pair_tasks(b, n2);
+  for (int t = threadIdx.x; t < tasks; t += blockDim.x) {
+    const PairTask p = pair_task(t, b, n1, n2, ld);
+    boot_pair(s1, buf + p.zq, buf + p.zm, p.q, n, eps);
+  }
+  palt::block_fft<palt::kStrip>(buf, 1, ld, n2, stw, -1.0f);
+  store_rows(buf, yc, lo, hi, b, n1, n2);
+}
+
+// Pass 3, pass 1 mirrored.  Grid (n2 / kStrip column strips, packed
+// rows): the inverse n1-point DFTs down the strip's columns give samples
+// n2*j1 + j2 of the packed inverse; the block's maxima of their real and
+// imaginary parts, times 1/n, go into out[2c] and out[2c + 1]
+// (`atomic_max_float`).
+__global__ void __launch_bounds__(1024)
+boot_cols(const float2* __restrict__ y, int rows, int n1, int n2,
+          const float2* __restrict__ tw, float* out) {
+  using palt::kStrip;
+  float2* stw = palt::fft_shared();
+  float2* buf = stw + (n1 >> 1);
+  float* red = reinterpret_cast<float*>(buf + n1 * kStrip);
+  const int n = n1 * n2;
+  const int c = blockIdx.y;
+  palt::stage_twiddles(stw, tw, n1, n2);
+  cols_inverse(y + (size_t)c * n, buf, stw, n1, n2, blockIdx.x * kStrip);
+  const int total = n1 * kStrip;
   float mre = -INFINITY;
   float mim = -INFINITY;
   for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
@@ -747,6 +897,55 @@ boot_cols(const float2* __restrict__ y, int rows, int n1, int n2,
     atomic_max_float(out + 2 * c, mre * scale);
     if (2 * c + 1 < rows) atomic_max_float(out + 2 * c + 1, mim * scale);
   }
+}
+
+// K4b / K6 on the split (n1 > 1) or in one block (n1 = 1) for rows given
+// by load; buf (ceil(rows/2), n) is the split's scratch.
+template <class Load>
+cudaError_t boot_split(const float2* s1, Load load, int rows, int n, int n1,
+                       float eps, const float2* tw, float2* buf, float* out,
+                       cudaStream_t s) {
+  using palt::fft_threads;
+  using palt::kStrip;
+  const int packed = (rows + 1) / 2;
+  const int red = 16 * (int)sizeof(float2);  // block_max's 32 floats
+  cudaError_t err;
+  if (n1 == 1) {
+    int threads = fft_threads(n, 1);
+    threads = threads < 32 ? 32 : threads;  // whole warps for block_max
+    err = palt::allow_smem<boot_block<Load>>();
+    if (err != cudaSuccess) return err;
+    boot_block<Load><<<packed, threads, (n / 2 + n) * (int)sizeof(float2) +
+                                            red, s>>>(s1, load, rows, n, eps,
+                                                      tw, out);
+    return cudaGetLastError();
+  }
+  const int n2 = n / n1;
+  err = cols_launch(load, packed, n1, n2, tw, buf, s);
+  if (err != cudaSuccess) return err;
+  const dim3 grid2(n1 / kStrip, packed);
+  const int threads2 = fft_threads(n2, kStrip);
+  const int smem2 =
+      (n2 / 2 + n1 + n2 + kStrip * (n2 + 1)) * (int)sizeof(float2);
+  if (n2 <= 256) {
+    err = palt::allow_smem<boot_rows<256, 2>>();
+    if (err != cudaSuccess) return err;
+    boot_rows<256, 2><<<grid2, threads2, smem2, s>>>(s1, rows, n1, n2, eps,
+                                                     tw, buf, out);
+  } else {
+    err = palt::allow_smem<boot_rows<1024, 1>>();
+    if (err != cudaSuccess) return err;
+    boot_rows<1024, 1><<<grid2, threads2, smem2, s>>>(s1, rows, n1, n2, eps,
+                                                      tw, buf, out);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = palt::allow_smem<boot_cols>();
+  if (err != cudaSuccess) return err;
+  boot_cols<<<dim3(n2 / kStrip, packed), fft_threads(n1, kStrip),
+              (n1 / 2 + n1 * kStrip) * (int)sizeof(float2) + red, s>>>(
+      buf, rows, n1, n2, tw, out);
+  return cudaGetLastError();
 }
 
 // In place: packed row spectra -> packed whitened cross-spectra against s1
@@ -793,18 +992,7 @@ __global__ void last_pass_max(const float2* __restrict__ in,
   }
 }
 
-// ---- K6: noise-null bootstrap peaks --------------------------------------
-
-// Point t of packed row (draw a) + i*(draw b): for t < n_samp the uniform
-// [-0.5, 0.5) sample t of each draw's Philox stream (key = the draw's two
-// seed words as uint32, counter = t); zero from n_samp on.
-__device__ __forceinline__ float2 noise_point(int t, int n_samp, bool two,
-                                              uint32_t a0, uint32_t a1,
-                                              uint32_t b0, uint32_t b1) {
-  if (t >= n_samp) return make_float2(0.0f, 0.0f);
-  return make_float2(palt::philox_uniform((uint32_t)t, a0, a1),
-                     two ? palt::philox_uniform((uint32_t)t, b0, b1) : 0.0f);
-}
+// ---- K6 above 2^20: the draws in the first radix-2 pass -----------------
 
 // The first forward Stockham pass (p = 1, twiddle 1: y[2i] = x[i] +
 // x[i + n/2], y[2i + 1] = their difference) over packed row c = draws 2c
@@ -1026,6 +1214,401 @@ __global__ void render_finalize(float2* z, int n, int mics, int out_len,
   }
 }
 
+// ---- the render and windowed-GCC stages on the split ---------------------
+//
+// K3's render and K2's windowed GCC (K5 runs both) on K4b's four-step
+// split n = n1 * n2, for 8,192 <= n <= 2^20 where their strips fit one
+// block (`cuda_fft.scene_stages` chooses, from n and the mic count, for
+// K3, K2 and K5 alike); elsewhere `render_stage` and `window_stage` run
+// the radix-2 passes.  Three launches a stage:
+//
+// render:  K4a's pass 1 over the base rows (two scenes a packed row);
+//          `render_rows`: the base strip's forward row DFTs, then for
+//          each of the two scenes' `mics` packed mic rows the mixes
+//          (`mic_response`, `render_mix`'s arithmetic) packed two mic rows
+//          a complex row, the inverse row DFTs and the conjugate twiddle;
+//          `render_cols`: the inverse column DFTs, written in place in
+//          natural order, the unscaled packed inverse `render_finalize`
+//          reads.
+// GCC:     K4a's pass 1 over the mic rows (real rows, or K5's finalized
+//          signals, packed in place); `gcc_rows`: one scene's strips of
+//          every packed mic row that holds one of its mics, and for each
+//          couple of pairs the whitened, band-masked cross-spectra
+//          (`gcc_cross`'s arithmetic) packed two pairs a row, the inverse
+//          row DFTs and the conjugate twiddle; `window_cols`: the inverse
+//          column DFTs, 1/n, the lag window and the three statistics,
+//          combined across the row's blocks in a fixed order.
+//
+// A row pass loops over its output rows with one spare strip, so shared
+// memory does not grow with the path count or, in the render, the mic
+// count; where its grid would not fill the card (one scene), gridDim.z
+// blocks share a block's output rows (`row_groups`), each transforming the
+// input strips again.  Bound: device memory, one write and one read of
+// each packed buffer a pass (and the row passes' instructions, as K4b's).
+
+// Bins q and n - q of the packed Hermitian pair ya + i*yb at the strip
+// offsets of p, as `store_packed` writes them.
+__device__ __forceinline__ void store_pair(float2* strip, PairTask p, int n,
+                                           float2 ya, float2 yb) {
+  const bool edge = p.q == 0 || p.q == (n >> 1);
+  if (edge) {
+    ya.y = 0.0f;
+    yb.y = 0.0f;
+  }
+  strip[p.zq] = make_float2(ya.x - yb.y, ya.y + yb.x);
+  if (!edge) strip[p.zm] = make_float2(ya.x + yb.y, yb.x - ya.y);
+}
+
+// Render pass 2.  Grid (n1 / S, packed base rows, groups): block (b, cb,
+// g) holds rows k1 of the packed base row cb (scenes 2cb and 2cb+1), whose
+// mic rows are packed rows [cb * mics, (cb + 1) * mics) (any mic count:
+// mic rows are numbered scene * mics + mic), and writes every gridDim.z-th
+// of them from the g-th; mic row r mixes the base spectrum of scene r /
+// mics.
+template <int kMaxThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+render_rows(const float* __restrict__ tau, const float* __restrict__ gain,
+            int rows, int mics, int paths, int n1, int n2,
+            const float2* __restrict__ tw, const float2* __restrict__ zb,
+            float2* __restrict__ z) {
+  constexpr int S = palt::kStrip;
+  float2* stw = palt::fft_shared();
+  float2* lo = stw + (n2 >> 1);
+  float2* hi = lo + n1;
+  float2* buf = hi + n2;
+  const int ld = n2 + 1;
+  float2* work = buf + S * ld;
+  const int n = n1 * n2;
+  const int cb = blockIdx.y;
+  const int b = blockIdx.x;
+  palt::stage_twiddles(stw, tw, n2, n1);
+  stage_split_tables(lo, hi, tw, n1, n2);
+  load_rows(zb + (size_t)cb * n, buf, b, n1, n2);
+  palt::block_fft<S>(buf, 1, ld, n2, stw, 1.0f);
+  const int tasks = pair_tasks(b, n2);
+  const int packed = (rows + 1) / 2;
+  const int last = min((cb + 1) * mics, packed);
+  for (int pm = cb * mics + blockIdx.z; pm < last; pm += gridDim.z) {
+    const int ra = 2 * pm;
+    const bool two = ra + 1 < rows;
+    const int oa = (ra / mics) & 1;
+    const int ob = ((ra + 1) / mics) & 1;
+    const float* ta = tau + (size_t)ra * paths;
+    const float* ga = gain + (size_t)ra * paths;
+    for (int t = threadIdx.x; t < tasks; t += blockDim.x) {
+      const PairTask p = pair_task(t, b, n1, n2, ld);
+      const float2 zq = buf[p.zq];
+      const float2 zm = buf[p.zm];
+      const float2 ya = cmul(split_bin(zq, zm, oa),
+                             mic_response(ta, ga, paths, p.q, n));
+      float2 yb = make_float2(0.0f, 0.0f);
+      if (two)
+        yb = cmul(split_bin(zq, zm, ob),
+                  mic_response(ta + paths, ga + paths, paths, p.q, n));
+      store_pair(work, p, n, ya, yb);
+    }
+    palt::block_fft<S>(work, 1, ld, n2, stw, -1.0f);
+    store_rows(work, z + (size_t)pm * n, lo, hi, b, n1, n2);
+    __syncthreads();  // the next mic row's tasks rewrite work
+  }
+}
+
+// Render pass 3.  Grid (n2 / kStrip column strips, packed mic rows): the
+// inverse column DFTs; sample n2*j1 + j2 goes back to the address the
+// strip read it from, which is its natural place.
+__global__ void __launch_bounds__(1024)
+render_cols(int n1, int n2, const float2* __restrict__ tw, float2* z) {
+  using palt::kStrip;
+  float2* stw = palt::fft_shared();
+  float2* buf = stw + (n1 >> 1);
+  const int c0 = blockIdx.x * kStrip;
+  float2* zc = z + (size_t)blockIdx.y * (size_t)(n1 * n2);
+  palt::stage_twiddles(stw, tw, n1, n2);
+  cols_inverse(zc, buf, stw, n1, n2, c0);
+  for (int idx = threadIdx.x; idx < n1 * kStrip; idx += blockDim.x)
+    zc[(size_t)(idx / kStrip) * n2 + c0 + idx % kStrip] = buf[idx];
+}
+
+// GCC pass 2.  Grid (n1 / S, scenes, groups): block (b, scene, g) holds
+// rows k1 of each packed mic row that holds one of the scene's mics (with
+// an odd mic count a packed row may hold the last mic of one scene and the
+// first of the next), then for every gridDim.z-th couple c from the g-th
+// writes packed cross row scene * couples + c.  Block (0, scene, 0) clears
+// the couples' argmax keys and block counters for `window_cols`.
+template <int kMaxThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+gcc_rows(const int* __restrict__ pairs_i, const int* __restrict__ pairs_j,
+         int num_pairs, int mics, const float* __restrict__ band, float eps,
+         int n1, int n2, const float2* __restrict__ tw,
+         const float2* __restrict__ zm, float2* __restrict__ zc,
+         unsigned long long* __restrict__ keys,
+         unsigned int* __restrict__ count) {
+  constexpr int S = palt::kStrip;
+  float2* stw = palt::fft_shared();
+  float2* lo = stw + (n2 >> 1);
+  float2* hi = lo + n1;
+  float2* strips = hi + n2;
+  const int ld = n2 + 1;
+  const int strip = S * ld;
+  const int n = n1 * n2;
+  const int scene = blockIdx.y;
+  const int b = blockIdx.x;
+  const int couples = (num_pairs + 1) / 2;
+  const int row0 = scene * mics;
+  const int first = row0 >> 1;
+  const int span = ((row0 + mics - 1) >> 1) - first + 1;
+  float2* work = strips + span * strip;
+  if (b == 0 && blockIdx.z == 0) {
+    for (int i = threadIdx.x; i < 2 * couples; i += blockDim.x)
+      keys[(size_t)scene * 2 * couples + i] = 0ull;
+    for (int i = threadIdx.x; i < couples; i += blockDim.x)
+      count[(size_t)scene * couples + i] = 0u;
+  }
+  palt::stage_twiddles(stw, tw, n2, n1);
+  stage_split_tables(lo, hi, tw, n1, n2);
+  for (int k = 0; k < span; ++k)
+    load_rows(zm + (size_t)(first + k) * n, strips + k * strip, b, n1, n2);
+  for (int k = 0; k < span; ++k)
+    palt::block_fft<S>(strips + k * strip, 1, ld, n2, stw, 1.0f);
+  const int tasks = pair_tasks(b, n2);
+  for (int c = blockIdx.z; c < couples; c += gridDim.z) {
+    const int p0 = 2 * c;
+    const bool two = p0 + 1 < num_pairs;
+    const int p1 = two ? p0 + 1 : p0;
+    const int i0 = row0 + pairs_i[p0];
+    const int j0 = row0 + pairs_j[p0];
+    const int i1 = row0 + pairs_i[p1];
+    const int j1 = row0 + pairs_j[p1];
+    const float2* si0 = strips + ((i0 >> 1) - first) * strip;
+    const float2* sj0 = strips + ((j0 >> 1) - first) * strip;
+    const float2* si1 = strips + ((i1 >> 1) - first) * strip;
+    const float2* sj1 = strips + ((j1 >> 1) - first) * strip;
+    for (int t = threadIdx.x; t < tasks; t += blockDim.x) {
+      const PairTask p = pair_task(t, b, n1, n2, ld);
+      const float bq = band[p.q];
+      float2 r0 = whiten(split_bin(si0[p.zq], si0[p.zm], i0 & 1),
+                         split_bin(sj0[p.zq], sj0[p.zm], j0 & 1), eps);
+      r0 = make_float2(r0.x * bq, r0.y * bq);
+      float2 r1 = make_float2(0.0f, 0.0f);
+      if (two) {
+        r1 = whiten(split_bin(si1[p.zq], si1[p.zm], i1 & 1),
+                    split_bin(sj1[p.zq], sj1[p.zm], j1 & 1), eps);
+        r1 = make_float2(r1.x * bq, r1.y * bq);
+      }
+      store_pair(work, p, n, r0, r1);
+    }
+    palt::block_fft<S>(work, 1, ld, n2, stw, -1.0f);
+    store_rows(work, zc + ((size_t)scene * couples + c) * n, lo, hi, b, n1,
+               n2);
+    __syncthreads();  // the next couple's tasks rewrite work
+  }
+}
+
+// (v, j) as one 64-bit key whose unsigned order is v's (-0 taken as +0),
+// then the smallest j: the maximum key is the maximum at its smallest
+// index, as `arg_update` keeps it, whatever order the blocks come in.
+__device__ __forceinline__ unsigned long long arg_key(float v, int j) {
+  const unsigned int u = __float_as_uint(v == 0.0f ? 0.0f : v);
+  const unsigned int ord = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)ord << 32) | (unsigned int)~j;
+}
+
+__device__ __forceinline__ void arg_unkey(unsigned long long key, float& v,
+                                          int& j) {
+  const unsigned int ord = (unsigned int)(key >> 32);
+  v = __uint_as_float((ord & 0x80000000u) ? (ord & 0x7FFFFFFFu) : ~ord);
+  j = (int)~(unsigned int)key;
+}
+
+// GCC pass 3.  Grid (n2 / kStrip column strips, scenes * couples): the
+// inverse column DFTs, times 1/n, of packed cross row scene * couples + c
+// (pairs 2c and 2c+1 as its real and imaginary parts); the window's
+// samples (j < w or j >= n - w, the lags of `last_pass_window`); each
+// block's sums of |corr| (a block tree) into part (scenes * couples, 2,
+// blocks) and its (max, smallest index) into keys by 64-bit atomicMax.
+// The row's last block (counted in count) sums the partials in block
+// order and writes the statistics: no float atomics, so the result does
+// not depend on the order in which the blocks run.
+__global__ void __launch_bounds__(1024)
+window_cols(const float2* __restrict__ zc, int num_pairs, int couples,
+            int n1, int n2, int w, const float2* __restrict__ tw,
+            float* __restrict__ win, float* __restrict__ stats, float* part,
+            unsigned long long* keys, unsigned int* count) {
+  using palt::kStrip;
+  __shared__ float sv[32];
+  __shared__ int si[32];
+  __shared__ bool last;
+  float2* stw = palt::fft_shared();
+  float2* buf = stw + (n1 >> 1);
+  const int n = n1 * n2;
+  const int row_c = blockIdx.y;
+  const int scene = row_c / couples;
+  const int p0 = 2 * (row_c - scene * couples);
+  const bool two = p0 + 1 < num_pairs;
+  const int c0 = blockIdx.x * kStrip;
+  const int nb = gridDim.x;
+  palt::stage_twiddles(stw, tw, n1, n2);
+  cols_inverse(zc + (size_t)row_c * n, buf, stw, n1, n2, c0);
+  const float scale = 1.0f / (float)n;
+  const size_t q0 = (size_t)scene * num_pairs + p0;
+  float* w0 = win + q0 * (size_t)(2 * w);
+  float* w1 = w0 + 2 * w;
+  float sum0 = 0.0f, sum1 = 0.0f;
+  float max0 = -INFINITY, max1 = -INFINITY;
+  int idx0 = INT_MAX, idx1 = INT_MAX;
+  for (int idx = threadIdx.x; idx < n1 * kStrip; idx += blockDim.x) {
+    const int j = (idx / kStrip) * n2 + c0 + idx % kStrip;
+    const float2 v = buf[idx];
+    const float a = v.x * scale;
+    const float d = v.y * scale;
+    sum0 += fabsf(a);
+    sum1 += fabsf(d);
+    arg_update(max0, idx0, a, j);
+    arg_update(max1, idx1, d, j);
+    const int at = j < w ? w + j : (j >= n - w ? j - (n - w) : -1);
+    if (at >= 0) {
+      w0[at] = a;
+      if (two) w1[at] = d;
+    }
+  }
+  sum0 = block_sum(sum0, sv);
+  sum1 = block_sum(sum1, sv);
+  block_argmax(max0, idx0, sv, si);
+  block_argmax(max1, idx1, sv, si);
+  if (threadIdx.x == 0) {
+    float* pr = part + (size_t)row_c * 2 * nb;
+    pr[blockIdx.x] = sum0;
+    pr[nb + blockIdx.x] = sum1;
+    atomicMax(keys + 2 * row_c, arg_key(max0, idx0));
+    atomicMax(keys + 2 * row_c + 1, arg_key(max1, idx1));
+    __threadfence();
+    last = atomicAdd(count + row_c, 1u) == (unsigned int)(nb - 1);
+  }
+  __syncthreads();
+  if (last && threadIdx.x == 0) {
+    __threadfence();
+    const volatile float* pr = part + (size_t)row_c * 2 * nb;
+    float t0 = 0.0f, t1 = 0.0f;
+    for (int i = 0; i < nb; ++i) {
+      t0 += pr[i];
+      t1 += pr[nb + i];
+    }
+    float m;
+    int j;
+    float* s0 = stats + q0 * 3;
+    arg_unkey(atomicAdd(keys + 2 * row_c, 0ull), m, j);
+    s0[0] = t0 / (float)n;
+    s0[1] = m;
+    s0[2] = (float)j;
+    if (two) {
+      arg_unkey(atomicAdd(keys + 2 * row_c + 1, 0ull), m, j);
+      s0[3] = t1 / (float)n;
+      s0[4] = m;
+      s0[5] = (float)j;
+    }
+  }
+}
+
+// Blocks a row pass's grid (blocks of `threads`) adds along z to share
+// `rows` output rows: enough to give each of the card's SMs 256 threads
+// (one scene's grid has 16 blocks), at most one a row; 1 for a batch.
+inline int row_groups(int blocks, int threads, int rows) {
+  const long long want = 256LL * sm_count();
+  const long long have = (long long)blocks * threads;
+  const long long groups = (want + have - 1) / have;
+  return (int)(groups < rows ? groups : rows);
+}
+
+// The render stage on the split (n1 > 1): base rows (scenes, len) -> z
+// (ceil(scenes * mics / 2), n), the unscaled packed inverse of the mixes
+// in natural order, through zb (ceil(scenes / 2), n).
+cudaError_t render_split(const float* base, int scenes, int len,
+                         const float* tau, const float* gain, int mics,
+                         int paths, int n, int n1, const float2* tw,
+                         float2* zb, float2* z, cudaStream_t s) {
+  using palt::fft_threads;
+  using palt::kStrip;
+  const int n2 = n / n1;
+  const int packed_b = (scenes + 1) / 2;
+  const int rows = scenes * mics;
+  cudaError_t err =
+      cols_launch(RowLoad{base, scenes, len}, packed_b, n1, n2, tw, zb, s);
+  if (err != cudaSuccess) return err;
+  const int threads2 = fft_threads(n2, kStrip);
+  const dim3 grid2(n1 / kStrip, packed_b,
+                   row_groups(n1 / kStrip * packed_b, threads2, mics));
+  const int smem2 =
+      (n2 / 2 + n1 + n2 + 2 * kStrip * (n2 + 1)) * (int)sizeof(float2);
+  if (n2 <= 256) {
+    err = palt::allow_smem<render_rows<256, 2>>();
+    if (err != cudaSuccess) return err;
+    render_rows<256, 2><<<grid2, threads2, smem2, s>>>(
+        tau, gain, rows, mics, paths, n1, n2, tw, zb, z);
+  } else {
+    err = palt::allow_smem<render_rows<1024, 1>>();
+    if (err != cudaSuccess) return err;
+    render_rows<1024, 1><<<grid2, threads2, smem2, s>>>(
+        tau, gain, rows, mics, paths, n1, n2, tw, zb, z);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = palt::allow_smem<render_cols>();
+  if (err != cudaSuccess) return err;
+  render_cols<<<dim3(n2 / kStrip, (rows + 1) / 2), fft_threads(n1, kStrip),
+                (n1 / 2 + n1 * kStrip) * (int)sizeof(float2), s>>>(n1, n2,
+                                                                   tw, z);
+  return cudaGetLastError();
+}
+
+// The windowed-GCC stage on the split (n1 > 1): the mic rows given by
+// load (rows scene * mics + mic) -> win / stats, through zm (ceil(scenes
+// * mics / 2), n; may be the loader's buffer) and zc (scenes * couples,
+// n); keys (scenes * couples * 2), count (scenes * couples) and part
+// (scenes * couples * 2 * n2 / kStrip) hold the statistics' partials.
+template <class Load>
+cudaError_t gcc_split(Load load, int scenes, int mics, const int* pairs_i,
+                      const int* pairs_j, int num_pairs, const float* band,
+                      float eps, int wq, int n, int n1, const float2* tw,
+                      float2* zm, float2* zc, unsigned long long* keys,
+                      unsigned int* count, float* part, float* win,
+                      float* stats, cudaStream_t s) {
+  using palt::fft_threads;
+  using palt::kStrip;
+  const int n2 = n / n1;
+  const int couples = (num_pairs + 1) / 2;
+  cudaError_t err =
+      cols_launch(load, (scenes * mics + 1) / 2, n1, n2, tw, zm, s);
+  if (err != cudaSuccess) return err;
+  const int strips = (mics + 1) / 2 + 1;  // a scene's widest span + 1
+  const int threads2 = fft_threads(n2, kStrip);
+  const dim3 grid2(n1 / kStrip, scenes,
+                   row_groups(n1 / kStrip * scenes, threads2, couples));
+  const int smem2 =
+      (n2 / 2 + n1 + n2 + strips * kStrip * (n2 + 1)) * (int)sizeof(float2);
+  if (n2 <= 256) {
+    err = palt::allow_smem<gcc_rows<256, 2>>();
+    if (err != cudaSuccess) return err;
+    gcc_rows<256, 2><<<grid2, threads2, smem2, s>>>(
+        pairs_i, pairs_j, num_pairs, mics, band, eps, n1, n2, tw, zm, zc,
+        keys, count);
+  } else {
+    err = palt::allow_smem<gcc_rows<1024, 1>>();
+    if (err != cudaSuccess) return err;
+    gcc_rows<1024, 1><<<grid2, threads2, smem2, s>>>(
+        pairs_i, pairs_j, num_pairs, mics, band, eps, n1, n2, tw, zm, zc,
+        keys, count);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = palt::allow_smem<window_cols>();
+  if (err != cudaSuccess) return err;
+  window_cols<<<dim3(n2 / kStrip, scenes * couples), fft_threads(n1, kStrip),
+                (n1 / 2 + n1 * kStrip) * (int)sizeof(float2), s>>>(
+      zc, num_pairs, couples, n1, n2, wq * 128, tw, win, stats, part, keys,
+      count);
+  return cudaGetLastError();
+}
+
 // ---- stages shared by the entry points -----------------------------------
 
 // Base rows (scenes, len) -> packed inverse of the per-mic mixes (rows
@@ -1099,7 +1682,6 @@ extern "C" {
 int palt_fft_real(const float* x, int rows, int len, int n, int n1, int s2,
                   const float2* tw, float2* buf, float2* out, void* stream) {
   using palt::fft_threads;
-  using palt::kStrip;
   cudaStream_t s = (cudaStream_t)stream;
   const int packed = (rows + 1) / 2;
   if (n1 == 1) {
@@ -1112,13 +1694,9 @@ int palt_fft_real(const float* x, int rows, int len, int n, int n1, int s2,
     return 0;
   }
   const int n2 = n / n1;
-  const int smem1 =
-      (n1 / 2 + n1 + n2 + n1 * kStrip) * (int)sizeof(float2);
-  const cudaError_t err = palt::allow_smem<fft_real_cols>();
+  const cudaError_t err =
+      cols_launch(RowLoad{x, rows, len}, packed, n1, n2, tw, buf, s);
   if (err != cudaSuccess) return (int)err;
-  fft_real_cols<<<dim3(n2 / kStrip, packed), fft_threads(n1, kStrip), smem1,
-                  s>>>(x, rows, len, n1, n2, tw, buf);
-  PALT_CHECK();
   return fft_real_rows_launch(buf, rows, n1, n2, s2, tw, out, s);
 }
 
@@ -1152,14 +1730,22 @@ int palt_gcc_all_pairs(const float* x, int scenes, int mics, int len, int n,
 }
 
 // K2: x (scenes, mics, len) -> win (scenes, num_pairs, 2*wq*128) lag-centred
-// correlation windows and stats (scenes, num_pairs, 3).
+// correlation windows and stats (scenes, num_pairs, 3).  n1 > 1: the split
+// n = n1 * n2 (`gcc_split`) through spec0 and c0, with keys, count and
+// part; n1 = 0: the radix-2 passes through spec0 / spec1 and c0 / c1.
 int palt_gcc_windowed(const float* x, int scenes, int mics, int len, int n,
-                      const int* pairs_i, const int* pairs_j, int num_pairs,
-                      const float* band, float eps, int wq, const float2* tw,
-                      float2* spec0, float2* spec1, float2* c0, float2* c1,
-                      float* win, float* stats, void* stream) {
+                      int n1, const int* pairs_i, const int* pairs_j,
+                      int num_pairs, const float* band, float eps, int wq,
+                      const float2* tw, float2* spec0, float2* spec1,
+                      float2* c0, float2* c1, unsigned long long* keys,
+                      unsigned int* count, float* part, float* win,
+                      float* stats, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int rows = scenes * mics;
+  if (n1 > 1)
+    return (int)gcc_split(RowLoad{x, rows, len}, scenes, mics, pairs_i,
+                          pairs_j, num_pairs, band, eps, wq, n, n1, tw, spec0,
+                          c0, keys, count, part, win, stats, s);
   const int packed = (rows + 1) / 2;
   pack_rows<<<dim3(palt::pass_blocks(n), packed), kThreads, 0, s>>>(
       x, rows, len, len, n, spec0);
@@ -1181,12 +1767,9 @@ int palt_gcc_windowed(const float* x, int scenes, int mics, int len, int n,
 int palt_bootstrap_peaks(const float2* s1, const float* x, int rows, int len,
                          int n, int n1, float eps, const float2* tw,
                          float2* buf, float* out, void* stream) {
-  using palt::fft_threads;
-  using palt::kStrip;
   cudaStream_t s = (cudaStream_t)stream;
-  const int packed = (rows + 1) / 2;
-  const int red = 16 * (int)sizeof(float2);  // block_max's 32 floats
   if (n1 == 0) {
+    const int packed = (rows + 1) / 2;
     pack_rows<<<dim3(palt::pass_blocks(n), packed), kThreads, 0, s>>>(
         x, rows, len, len, n, buf);
     PALT_CHECK();
@@ -1195,64 +1778,32 @@ int palt_bootstrap_peaks(const float2* s1, const float* x, int rows, int len,
     PALT_CHECK();
     return 0;
   }
-  cudaError_t err;
-  if (n1 == 1) {
-    int threads = fft_threads(n, 1);
-    threads = threads < 32 ? 32 : threads;  // whole warps for block_max
-    err = palt::allow_smem<boot_block>();
-    if (err != cudaSuccess) return (int)err;
-    boot_block<<<packed, threads, (n / 2 + n) * (int)sizeof(float2) + red,
-                 s>>>(s1, x, rows, len, n, eps, tw, out);
-    PALT_CHECK();
-    return 0;
-  }
-  const int n2 = n / n1;
-  err = palt::allow_smem<fft_real_cols>();
-  if (err != cudaSuccess) return (int)err;
-  fft_real_cols<<<dim3(n2 / kStrip, packed), fft_threads(n1, kStrip),
-                  (n1 / 2 + n1 + n2 + n1 * kStrip) * (int)sizeof(float2),
-                  s>>>(x, rows, len, n1, n2, tw, buf);
-  PALT_CHECK();
-  const dim3 grid2(n1 / kStrip, packed);
-  const int threads2 = fft_threads(n2, kStrip);
-  const int smem2 =
-      (n2 / 2 + n1 + n2 + kStrip * (n2 + 1)) * (int)sizeof(float2);
-  if (n2 <= 256) {
-    err = palt::allow_smem<boot_rows<256, 2>>();
-    if (err != cudaSuccess) return (int)err;
-    boot_rows<256, 2><<<grid2, threads2, smem2, s>>>(s1, rows, n1, n2, eps,
-                                                     tw, buf, out);
-  } else {
-    err = palt::allow_smem<boot_rows<1024, 1>>();
-    if (err != cudaSuccess) return (int)err;
-    boot_rows<1024, 1><<<grid2, threads2, smem2, s>>>(s1, rows, n1, n2, eps,
-                                                      tw, buf, out);
-  }
-  PALT_CHECK();
-  err = palt::allow_smem<boot_cols>();
-  if (err != cudaSuccess) return (int)err;
-  boot_cols<<<dim3(n2 / kStrip, packed), fft_threads(n1, kStrip),
-              (n1 / 2 + n1 * kStrip) * (int)sizeof(float2) + red, s>>>(
-      buf, rows, n1, n2, tw, out);
-  PALT_CHECK();
-  return 0;
+  return (int)boot_split(s1, RowLoad{x, rows, len}, rows, n, n1, eps, tw,
+                         buf, out, s);
 }
 
 // K6: s1 (n/2+1) complex, seeds (rows, 2) int32 -> out (rows,) maxima of
 // the PHAT correlations between s1's signal and `rows` in-kernel uniform
-// noise draws of n_samp samples each, zero-padded to n.
+// noise draws of n_samp samples each, zero-padded to n: K4b's schedules
+// and buffer (n1 and buf as there) with the draws made by the loader; the
+// passes (n1 = 0) draw in their first pass.
 int palt_noise_bootstrap_peaks(const float2* s1, const int* seeds, int rows,
-                               int n_samp, int n, float eps,
-                               const float2* tw, float2* buf0, float2* buf1,
-                               float* out, void* stream) {
+                               int n_samp, int n, int n1, float eps,
+                               const float2* tw, float2* buf, float* out,
+                               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int packed = (rows + 1) / 2;
-  noise_first_pass<<<dim3(palt::pass_blocks(n), packed), kThreads, 0, s>>>(
-      seeds, rows, n_samp, n, buf0);
-  PALT_CHECK();
-  boot_stage(s1, rows, n, eps, 1, tw, buf0, buf1, out, s);
-  PALT_CHECK();
-  return 0;
+  if (n1 == 0) {
+    const int packed = (rows + 1) / 2;
+    noise_first_pass<<<dim3(palt::pass_blocks(n), packed), kThreads, 0,
+                       s>>>(seeds, rows, n_samp, n, buf);
+    PALT_CHECK();
+    boot_stage(s1, rows, n, eps, 1, tw, buf, buf + (size_t)packed * n, out,
+               s);
+    PALT_CHECK();
+    return 0;
+  }
+  return (int)boot_split(s1, NoiseLoad{seeds, rows, n_samp}, rows, n, n1,
+                         eps, tw, buf, out, s);
 }
 
 // K7: z (count) complex -> out (count) = z / (|z| + eps); out may be z.
@@ -1295,17 +1846,26 @@ int palt_whitened_corr(const float2* a, const float2* b, int rows, int n,
 // linear gain -> out (scenes, mics, out_len): circular multipath render at
 // length n, scaled by 1/n and fade, optionally finalized per mic, and with
 // measurement noise at snr_db (scenes,) from seeds (scenes, 2) unless
-// snr_db is NULL.
+// snr_db is NULL.  n1 > 1: the render on the split (`render_split`)
+// through zb0 and z0; n1 = 0: the radix-2 passes through zb0 / zb1 and
+// z0 / z1.
 int palt_delay_sum(const float* base, int scenes, int len, const float* tau,
-                   const float* gain, int mics, int paths, int n, int out_len,
-                   const float* fade, int finalize, const float* snr_db,
-                   const int* seeds, const float2* tw, float2* zb0,
-                   float2* zb1, float2* z0, float2* z1, float* out,
-                   void* stream) {
+                   const float* gain, int mics, int paths, int n, int n1,
+                   int out_len, const float* fade, int finalize,
+                   const float* snr_db, const int* seeds, const float2* tw,
+                   float2* zb0, float2* zb1, float2* z0, float2* z1,
+                   float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  float2* sig = render_stage(base, scenes, len, tau, gain, mics, paths, n,
-                             tw, zb0, zb1, z0, z1, s);
-  PALT_CHECK();
+  float2* sig = z0;
+  if (n1 > 1) {
+    const cudaError_t err = render_split(base, scenes, len, tau, gain, mics,
+                                         paths, n, n1, tw, zb0, z0, s);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    sig = render_stage(base, scenes, len, tau, gain, mics, paths, n, tw, zb0,
+                       zb1, z0, z1, s);
+    PALT_CHECK();
+  }
   render_finalize<<<scenes * mics, kRowThreads, 0, s>>>(
       sig, n, mics, out_len, fade, 1.0f / (float)n, finalize, snr_db, seeds,
       out, 0);
@@ -1315,27 +1875,44 @@ int palt_delay_sum(const float* base, int scenes, int len, const float* tau,
 
 // K5: the whole scene.  K3's render with finalize (and noise) for every
 // scene, each finished signal written in place as the packed forward input
-// of K2's GCC, then K2's transforms and windowed epilogue.  Outputs as K2.
+// of K2's GCC, then K2's GCC stage.  Outputs as K2.  Each stage on the
+// split or the passes as K3 (n1r) and K2 (n1g) would run it, through the
+// same buffers; a GCC stage on the split transforms the finished signals
+// in place.
 int palt_scene_windowed(const float* base, int scenes, int len,
                         const float* tau, const float* gain, int mics,
-                        int paths, int n, int out_len, const float* fade,
-                        const float* snr_db, const int* seeds,
-                        const int* pairs_i, const int* pairs_j, int num_pairs,
-                        const float* band, float eps, int wq,
-                        const float2* tw, float2* zb0, float2* zb1,
-                        float2* z0, float2* z1, float2* c0, float2* c1,
-                        float* win, float* stats, void* stream) {
+                        int paths, int n, int n1r, int n1g, int out_len,
+                        const float* fade, const float* snr_db,
+                        const int* seeds, const int* pairs_i,
+                        const int* pairs_j, int num_pairs, const float* band,
+                        float eps, int wq, const float2* tw, float2* zb0,
+                        float2* zb1, float2* z0, float2* z1, float2* c0,
+                        float2* c1, unsigned long long* keys,
+                        unsigned int* count, float* part, float* win,
+                        float* stats, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  float2* sig = render_stage(base, scenes, len, tau, gain, mics, paths, n,
-                             tw, zb0, zb1, z0, z1, s);
-  PALT_CHECK();
-  render_finalize<<<scenes * mics, kRowThreads, 0, s>>>(
+  const int rows = scenes * mics;
+  float2* sig = z0;
+  if (n1r > 1) {
+    const cudaError_t err = render_split(base, scenes, len, tau, gain, mics,
+                                         paths, n, n1r, tw, zb0, z0, s);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    sig = render_stage(base, scenes, len, tau, gain, mics, paths, n, tw, zb0,
+                       zb1, z0, z1, s);
+    PALT_CHECK();
+  }
+  render_finalize<<<rows, kRowThreads, 0, s>>>(
       sig, n, mics, out_len, fade, 1.0f / (float)n, 1, snr_db, seeds,
       nullptr, 1);
   PALT_CHECK();
+  if (n1g > 1)
+    return (int)gcc_split(PackedLoad{sig, rows, n}, scenes, mics, pairs_i,
+                          pairs_j, num_pairs, band, eps, wq, n, n1g, tw, sig,
+                          c0, keys, count, part, win, stats, s);
   float2* other = sig == z0 ? z1 : z0;
-  const int packed = (scenes * mics + 1) / 2;
-  float2* spec = fft_rows(sig, other, tw, n, packed, 0, log2_int(n), s);
+  float2* spec = fft_rows(sig, other, tw, n, (rows + 1) / 2, 0, log2_int(n),
+                          s);
   PALT_CHECK();
   window_stage(spec, scenes, mics, pairs_i, pairs_j, num_pairs, band, eps,
                wq, n, tw, c0, c1, win, stats, s);

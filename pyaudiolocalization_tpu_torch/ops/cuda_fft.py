@@ -10,11 +10,11 @@ wrapper               replaces                               bound on an H100
 fft_real              bfly_fft_real (:685)                   memory: 2 launches
 whitened_corr         bfly_whitened_corr (:707)              memory: FFT passes
 gcc_all_pairs         bfly_gcc_all_pairs (:922)              memory: FFT passes
-gcc_windowed          bfly_gcc_windowed (:1095)              memory: FFT passes
+gcc_windowed          bfly_gcc_windowed (:1095)              memory: 3 launches
 bootstrap_peaks       bfly_bootstrap_peaks (:1227)           memory: 3 launches
-noise_bootstrap_peaks bfly_noise_bootstrap_peaks (:1326)     memory: FFT passes
-scene_windowed        bfly_scene_windowed (:1600)            memory: FFT passes
-delay_sum             bfly_delay_sum (:1851)                 memory: FFT passes
+noise_bootstrap_peaks bfly_noise_bootstrap_peaks (:1326)     memory: 3 launches
+scene_windowed        bfly_scene_windowed (:1600)            memory: 7 launches
+delay_sum             bfly_delay_sum (:1851)                 memory: 4 launches
 whiten                pallas_kernels.phat_whiten_planes (:34) memory: 16 B/bin
 ===================== ====================================== ==================
 
@@ -24,16 +24,21 @@ The three kernels of K10, the TPU package's A/B tool of FFT schedules
 library from ``csrc/rowdft.cu``; their launches count here too.
 
 All but ``whiten`` are built on one FFT (``csrc/fft.cuh``) in two
-schedules.  ``fft_real``, ``bootstrap_peaks`` (and K10's ``row_stages``)
-run on-chip sub-transforms: a block holds a strip of sequences in shared
-memory for all of its radix-16 stages, and a long row is a four-step
-split of two such launches (``fft_real_split``; the bootstrap runs it
-forward and back in three), so a transform reads and writes each point
+schedules.  ``fft_real``, ``bootstrap_peaks``, ``noise_bootstrap_peaks``
+(and K10's ``row_stages``) and, where ``scene_stages`` gives the split,
+``delay_sum``, ``gcc_windowed`` and ``scene_windowed`` run on-chip
+sub-transforms: a block holds a strip of sequences in shared memory for
+all of its radix-16 stages, and a long row is a four-step split of two
+such launches (``fft_real_split``; the bootstrap, the render and the
+windowed GCC run it forward and back in three, the middle launch holding
+rows for both directions), so a transform reads and writes each point
 once per launch (16 bytes a complex point) and is bound by device memory
-at that.  The others run radix-2 Stockham passes over rows in
-device memory, one launch and 16 bytes a point per pass, about
-16·log2(nfft) bytes per point and transform; they fuse their first or last
-pass into a prologue or epilogue.  The design keeps the rest of the work out of device memory where
+at that.  The others run radix-2 Stockham passes over rows in device
+memory, one launch and 16 bytes a point per pass, about 16·log2(nfft)
+bytes per point and transform, and fuse their first or last pass into a
+prologue or epilogue; so do the render, windowed-GCC and scene kernels up
+to 4096 points and where their strips do not fit, and the bootstraps
+above 2^20.  The design keeps the rest of the work out of device memory where
 the TPU kernels did: real rows are packed two to a complex transform, the
 whitening / ramp synthesis runs in one pass over the spectra, two real
 results share each inverse, and the bootstrap's maxima and the windowed
@@ -78,6 +83,10 @@ PHAT_EPS = 1e-10
 # split of two on-chip transforms reaches 1024 x 1024.
 FFT_REAL_ONE_BLOCK = 4096
 FFT_REAL_MAX = 1 << 20
+# Rows a split row pass holds (kStrip, csrc/fft.cuh), and the shared
+# memory one block may opt in to on an H100 (227 KB).
+ROW_STRIP = 16
+SMEM_OPTIN = 232448
 
 #: Kernel launches per wrapper since the last ``reset_launches()``.
 LAUNCHES: Dict[str, int] = {"fft_real": 0, "gcc_all_pairs": 0,
@@ -153,19 +162,19 @@ def _library() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         signatures = {
             "palt_fft_real": [p, i, i, i, i, i, p, p, p, p],
-            "palt_noise_bootstrap_peaks": [p, p, i, i, i, f, p, p, p, p, p],
+            "palt_noise_bootstrap_peaks": [p, p, i, i, i, i, f, p, p, p, p],
             "palt_whiten": [p, ctypes.c_longlong, f, p, p],
             "palt_whitened_corr": [p, p, i, i, p, f, p, p, p, p, p],
             "palt_gcc_all_pairs": [p, i, i, i, i, p, p, i, p, f, p, p, p, p,
                                    p, p, p],
             "palt_bootstrap_peaks": [p, p, i, i, i, i, f, p, p, p, p],
-            "palt_gcc_windowed": [p, i, i, i, i, p, p, i, p, f, i, p, p, p,
-                                  p, p, p, p, p],
-            "palt_delay_sum": [p, i, i, p, p, i, i, i, i, p, i, p, p, p, p,
-                               p, p, p, p, p],
-            "palt_scene_windowed": [p, i, i, p, p, i, i, i, i, p, p, p, p, p,
-                                    i, p, f, i, p, p, p, p, p, p, p, p, p,
-                                    p],
+            "palt_gcc_windowed": [p, i, i, i, i, i, p, p, i, p, f, i, p, p,
+                                  p, p, p, p, p, p, p, p, p],
+            "palt_delay_sum": [p, i, i, p, p, i, i, i, i, i, p, i, p, p, p,
+                               p, p, p, p, p, p],
+            "palt_scene_windowed": [p, i, i, p, p, i, i, i, i, i, i, p, p, p,
+                                    p, p, i, p, f, i, p, p, p, p, p, p, p, p,
+                                    p, p, p, p, p],
             "palt_row_dft": [p, p, i, i, i, i, i, f, p, p, p, p, p, p, p, i,
                              i, p],
             "palt_row_stages": [p, p, i, i, i, i, i, f, p, p, p, p, p, i,
@@ -300,6 +309,59 @@ def fft_real_rows_strip(n2: int, packed: int) -> int:
     if packed < 64 or n2 > 512:
         return 16
     return 64 if n2 <= 256 else 32
+
+
+def _row_pass_smem(n1: int, n2: int, strips: int) -> int:
+    """Bytes of shared memory of a split row pass (``render_rows``,
+    ``gcc_rows``) that holds ``strips`` strips of ``ROW_STRIP`` rows of n2
+    points (sequence stride n2 + 1) and the twiddle tables (n2/2 + n1 +
+    n2 complex)."""
+    return 8 * (n2 // 2 + n1 + n2 + strips * ROW_STRIP * (n2 + 1))
+
+
+def scene_stages(nfft: int, mics: int):
+    """(n1 of the render stage, n1 of the windowed-GCC stage) of K3, K2 and
+    K5 for ``mics`` mics a scene at nfft: the four-step split nfft = n1 *
+    n2 of ``fft_real_split`` where 4096 < nfft <= 2^20 and the row pass's
+    strips fit one block's shared memory (``SMEM_OPTIN``), else 0, the
+    radix-2 passes.  The render's row pass holds two strips (the base rows
+    and one output row at a time), the GCC's one strip for each packed mic
+    row a scene's mics can span ((mics + 1) // 2) and one for the output.
+    K5 runs each stage as K3 and K2 run it, so that the fused and the split
+    paths compute the same bits."""
+    if not FFT_REAL_ONE_BLOCK < nfft <= FFT_REAL_MAX:
+        return 0, 0
+    n1, n2 = fft_real_split(nfft)
+    render = n1 if _row_pass_smem(n1, n2, 2) <= SMEM_OPTIN else 0
+    gcc = (n1 if _row_pass_smem(n1, n2, (mics + 1) // 2 + 1) <= SMEM_OPTIN
+           else 0)
+    return render, gcc
+
+
+def _window_scratch(rows: int, nfft: int, n1: int, device):
+    """``window_cols``' partials for ``rows`` packed cross rows on the
+    split (n1 > 1): the (max, index) keys (rows * 2, int64), the block
+    counters (rows, int32) and the per-block sums of |corr| (rows * 2 *
+    n2 / ROW_STRIP, float32); Nones on the passes."""
+    if not n1:
+        return None, None, None
+    blocks = nfft // n1 // ROW_STRIP
+    return (torch.empty(2 * rows, dtype=torch.int64, device=device),
+            torch.empty(rows, dtype=torch.int32, device=device),
+            torch.empty(2 * rows * blocks, dtype=torch.float32,
+                        device=device))
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _buffers(copies: int, rows: int, nfft: int, device):
+    """Pointers to the first and second of ``copies`` scratch buffers of
+    (rows, nfft) complex (None where there are fewer), and the tensors."""
+    bufs = [_scratch(rows, nfft, device) for _ in range(copies)]
+    ptrs = [b.data_ptr() for b in bufs] + [None, None]
+    return ptrs[0], ptrs[1], bufs
 
 
 def fft_real(x: torch.Tensor, nfft: int) -> torch.Tensor:
@@ -518,12 +580,21 @@ def gcc_windowed(signals: torch.Tensor, pairs_i: Sequence[int],
     index attaining it).  wq <= nfft/256.
 
     Replaces ``bfly_gcc_windowed`` (pyaudiolocalization_tpu/ops/
-    pallas_fft.py:1095; ``_couple_window_stats`` :1032): K1's packed
-    forward and whitening over every row of every scene, the packed
-    inverse, and its last pass fused with the scale, the window write and
-    the statistics (one block per pair couple), so the (..., P, nfft)
-    correlation is never written.  Bound by the FFT passes' device-memory
-    traffic."""
+    pallas_fft.py:1095; ``_couple_window_stats`` :1032): the packed
+    forward transforms of every mic row of every scene (two rows a complex
+    transform), the whitened, band-masked cross-spectra of two pairs a
+    packed row, the packed inverse, and the scale, the window write and
+    the statistics in the inverse's last step, so the (..., P, nfft)
+    correlation is never written.  Where ``scene_stages`` gives a split
+    (8,192 <= nfft <= 2^19; up to 10 mics a scene at 65,536), three
+    launches on K4b's four-step schedule: K4a's column pass; a row pass
+    that holds a scene's strips of every packed mic row and, couple by
+    couple, forms the cross-spectra and runs the inverse row DFTs; a
+    column pass whose inverse column DFTs end in the window and the
+    statistics (per-block partials summed in block order by the row's
+    last block, the argmax by a 64-bit atomic maximum that keeps the
+    smallest index on ties).  Elsewhere the radix-2 passes, the last one
+    fused with the window and the statistics.  Bound by device memory."""
     _check_window("gcc_windowed", nfft, wq)
     if _use_plain(signals, mask):
         return gcc_windowed_plain(signals, pairs_i, pairs_j, nfft, wq, mask,
@@ -551,14 +622,17 @@ def gcc_windowed(signals: torch.Tensor, pairs_i: Sequence[int],
                       device=dev)
     stats = torch.empty(lead + (num_pairs, 3), dtype=torch.float32,
                         device=dev)
-    spec = [_scratch((rows + 1) // 2, nfft, dev) for _ in range(2)]
-    cpl = [_scratch(scenes * couples, nfft, dev) for _ in range(2)]
+    n1 = scene_stages(nfft, mics)[1]
+    copies = 1 if n1 else 2
+    spec0, spec1, _spec = _buffers(copies, (rows + 1) // 2, nfft, dev)
+    cpl0, cpl1, _cpl = _buffers(copies, scenes * couples, nfft, dev)
+    keys, count, part = _window_scratch(scenes * couples, nfft, n1, dev)
     tw = _twiddles(nfft, str(dev))
     _launch("gcc_windowed", dev, lib.palt_gcc_windowed, signals.data_ptr(),
-            scenes, mics, length, nfft, pi_t.data_ptr(), pj_t.data_ptr(),
-            num_pairs, mask.data_ptr(), eps, wq, tw.data_ptr(),
-            spec[0].data_ptr(), spec[1].data_ptr(), cpl[0].data_ptr(),
-            cpl[1].data_ptr(), win.data_ptr(), stats.data_ptr())
+            scenes, mics, length, nfft, n1, pi_t.data_ptr(), pj_t.data_ptr(),
+            num_pairs, mask.data_ptr(), eps, wq, tw.data_ptr(), spec0, spec1,
+            cpl0, cpl1, _ptr(keys), _ptr(count), _ptr(part), win.data_ptr(),
+            stats.data_ptr())
     return win, stats
 
 
@@ -646,11 +720,16 @@ def noise_bootstrap_peaks(s1: torch.Tensor, seeds: torch.Tensor,
     ``ops/noise.uniform``), zero-padded to nfft -> (B,) maxima.
 
     Replaces ``bfly_noise_bootstrap_peaks`` (pyaudiolocalization_tpu/ops/
-    pallas_fft.py:1326): K4b's pipeline with its row load replaced by the
-    draw, made inside the first forward pass (two draws per complex
-    transform), so the rows never exist in device memory and no
-    permutation is sorted.  Bound by the FFT passes' device-memory
-    traffic."""
+    pallas_fft.py:1326): K4b's schedules (``bootstrap_peaks``: one launch
+    up to 4096, three on the four-step split up to 2^20, the radix-2
+    passes above) with its row load replaced by the draw, made where the
+    first forward step reads the point (two draws per complex transform),
+    so the rows never exist in device memory and no permutation is
+    sorted.  The draws and everything after them are K4b's, so the peaks
+    equal ``bootstrap_peaks`` of ``noise_ops.uniform(seeds, n_samp)``
+    bit for bit on the split and in one block.  Bound by device memory
+    (one write and two reads of the packed buffer on the split) and the
+    Philox rounds."""
     if _use_plain(s1, seeds):
         return noise_bootstrap_peaks_plain(s1, seeds, n_samp, nfft, eps)
     _check_contiguous("noise_bootstrap_peaks", s1, seeds)
@@ -665,12 +744,16 @@ def noise_bootstrap_peaks(s1: torch.Tensor, seeds: torch.Tensor,
     lib = _library()
     dev = s1.device
     out = torch.empty(num, dtype=torch.float32, device=dev)
-    bufs = [_scratch((num + 1) // 2, nfft, dev) for _ in range(2)]
+    packed = (num + 1) // 2
+    # As bootstrap_peaks: n1 = 0 the passes (two halves of one buffer),
+    # 1 one block (no buffer).
+    n1 = fft_real_split(nfft)[0] if nfft <= FFT_REAL_MAX else 0
+    buf = (None if n1 == 1 else
+           _scratch(packed * (2 if n1 == 0 else 1), nfft, dev))
     tw = _twiddles(nfft, str(dev))
     _launch("noise_bootstrap_peaks", dev, lib.palt_noise_bootstrap_peaks,
-            s1.data_ptr(), seeds.data_ptr(), num, n_samp, nfft, eps,
-            tw.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
-            out.data_ptr())
+            s1.data_ptr(), seeds.data_ptr(), num, n_samp, nfft, n1, eps,
+            tw.data_ptr(), _ptr(buf), out.data_ptr())
     return out
 
 
@@ -758,8 +841,12 @@ def delay_sum(base: torch.Tensor, tau: torch.Tensor, gains: torch.Tensor,
     the fly from (tau, gain) with the phase reduced by whole turns and a
     real Nyquist bin (cos(pi*tau)), two mic rows per packed inverse, and
     one block per mic row for scale, fade, trim, finalize and noise.  One
-    launch covers every scene.  Bound by the FFT passes' device-memory
-    traffic."""
+    call covers every scene.  Where ``scene_stages`` gives a split
+    (8,192 <= nfft <= 2^19), four launches on K4b's four-step schedule:
+    K4a's column pass over the bases; a row pass that holds a base strip,
+    mixes each of its mic rows in turn and runs their inverse row DFTs;
+    the inverse column DFTs in place; the finalize.  Elsewhere the radix-2
+    passes.  Bound by device memory."""
     _check_noise_pair("delay_sum", snr_db, seeds)
     if _use_plain(base, tau, gains, fade):
         return delay_sum_plain(base, tau, gains, nfft, out_samples, fade,
@@ -775,16 +862,15 @@ def delay_sum(base: torch.Tensor, tau: torch.Tensor, gains: torch.Tensor,
     dev = base.device
     out = torch.empty(lead + (mics, out_samples), dtype=torch.float32,
                       device=dev)
-    zb = [_scratch((scenes + 1) // 2, nfft, dev) for _ in range(2)]
-    zm = [_scratch((scenes * mics + 1) // 2, nfft, dev) for _ in range(2)]
+    n1 = scene_stages(nfft, mics)[0]
+    copies = 1 if n1 else 2
+    zb0, zb1, _zb = _buffers(copies, (scenes + 1) // 2, nfft, dev)
+    zm0, zm1, _zm = _buffers(copies, (scenes * mics + 1) // 2, nfft, dev)
     tw = _twiddles(nfft, str(dev))
     _launch("delay_sum", dev, lib.palt_delay_sum, base.data_ptr(), scenes,
-            length, tau.data_ptr(), gains.data_ptr(), mics, paths, nfft,
-            out_samples, fade.data_ptr(), int(finalize),
-            None if snr_db is None else snr_db.data_ptr(),
-            None if seeds is None else seeds.data_ptr(), tw.data_ptr(),
-            zb[0].data_ptr(), zb[1].data_ptr(), zm[0].data_ptr(),
-            zm[1].data_ptr(), out.data_ptr())
+            length, tau.data_ptr(), gains.data_ptr(), mics, paths, nfft, n1,
+            out_samples, fade.data_ptr(), int(finalize), _ptr(snr_db),
+            _ptr(seeds), tw.data_ptr(), zb0, zb1, zm0, zm1, out.data_ptr())
     return out
 
 
@@ -817,11 +903,15 @@ def scene_windowed(base: torch.Tensor, tau: torch.Tensor,
     pallas_fft.py:1600; ``_bfly_scene_kernel`` :1503).  The TPU kernel kept
     one scene in VMEM; one scene's 4 x 65,536 complex spectra (2 MB)
     exceed a block's 227 KB of shared memory, so here one host entry runs
-    K3's passes and K2's passes for all scenes back to back on one stream,
-    the intermediates in device memory and L2.  The finalize / noise block
-    writes each finished signal in place as the packed forward input of
-    the GCC stage (zero-padded to nfft).  Bound by the FFT passes'
-    device-memory traffic."""
+    K3's render stage and K2's GCC stage for all scenes back to back on
+    one stream, each on the schedule ``scene_stages`` gives K3 and K2 (at
+    65,536: three launches each on the four-step split, with the finalize
+    between, seven in all), the intermediates in device memory and L2.
+    The finalize / noise block writes each finished signal in place as
+    the packed forward input of the GCC stage (zero-padded to nfft), whose
+    column pass transforms it in place.  The same stage code as
+    ``delay_sum`` then ``gcc_windowed``, so the two paths agree to the bit
+    on the same inputs.  Bound by device memory."""
     _check_noise_pair("scene_windowed", snr_db, seeds)
     _check_window("scene_windowed", nfft, wq)
     if _use_plain(base, tau, gains, fade, mask):
@@ -849,19 +939,21 @@ def scene_windowed(base: torch.Tensor, tau: torch.Tensor,
                       device=dev)
     stats = torch.empty(lead + (num_pairs, 3), dtype=torch.float32,
                         device=dev)
-    zb = [_scratch((scenes + 1) // 2, nfft, dev) for _ in range(2)]
-    zm = [_scratch((scenes * mics + 1) // 2, nfft, dev) for _ in range(2)]
-    cpl = [_scratch(scenes * couples, nfft, dev) for _ in range(2)]
+    n1r, n1g = scene_stages(nfft, mics)
+    # One copy of a buffer where the stages that use it run on the split.
+    zb0, zb1, _zb = _buffers(1 if n1r else 2, (scenes + 1) // 2, nfft, dev)
+    zm0, zm1, _zm = _buffers(1 if n1r and n1g else 2,
+                             (scenes * mics + 1) // 2, nfft, dev)
+    cpl0, cpl1, _cpl = _buffers(1 if n1g else 2, scenes * couples, nfft, dev)
+    keys, count, part = _window_scratch(scenes * couples, nfft, n1g, dev)
     tw = _twiddles(nfft, str(dev))
     _launch("scene_windowed", dev, lib.palt_scene_windowed, base.data_ptr(),
             scenes, length, tau.data_ptr(), gains.data_ptr(), mics, paths,
-            nfft, out_samples, fade.data_ptr(),
-            None if snr_db is None else snr_db.data_ptr(),
-            None if seeds is None else seeds.data_ptr(), pi_t.data_ptr(),
-            pj_t.data_ptr(), num_pairs, mask.data_ptr(), eps, wq,
-            tw.data_ptr(), zb[0].data_ptr(), zb[1].data_ptr(),
-            zm[0].data_ptr(), zm[1].data_ptr(), cpl[0].data_ptr(),
-            cpl[1].data_ptr(), win.data_ptr(), stats.data_ptr())
+            nfft, n1r, n1g, out_samples, fade.data_ptr(), _ptr(snr_db),
+            _ptr(seeds), pi_t.data_ptr(), pj_t.data_ptr(), num_pairs,
+            mask.data_ptr(), eps, wq, tw.data_ptr(), zb0, zb1, zm0, zm1,
+            cpl0, cpl1, _ptr(keys), _ptr(count), _ptr(part), win.data_ptr(),
+            stats.data_ptr())
     return win, stats
 
 

@@ -98,7 +98,7 @@ def _device_kernels(fn, path):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):  # a process's first trace may miss kernels
+    for _ in range(3):  # a process's first traces may miss kernels
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
@@ -113,7 +113,12 @@ def test_device_kernels_per_call(cuda, tmp_path):
     four-step passes) and one at 4,096; K4b three at 65,536 (K4a's column
     pass, the row pass with the whitening, the column pass with the
     maxima, which it combines with atomics: no separate reduction) and one
-    at 4,096; K10b one kernel per transform."""
+    at 4,096; K6 the same with its draws made by the column pass; K3 four
+    at 65,536 (the column pass over the bases, the row pass with the mixes,
+    the inverse column pass, the finalize), K2 three (the column pass, the
+    row pass with the cross-spectra, the column pass with the window and
+    the statistics) and K5 seven (K3's and K2's without K2's separate
+    signals); K10b one kernel per transform."""
     from pyaudiolocalization_tpu_torch.ops import rowdft as rd
     x = torch.randn((2, 44100), generator=_gen(cuda), device=cuda)
     names = _device_kernels(lambda: cf.fft_real(x, 65536),
@@ -134,6 +139,44 @@ def test_device_kernels_per_call(cuda, tmp_path):
     names = _device_kernels(lambda: cf.bootstrap_peaks(s1, short, 4096),
                             tmp_path / "k4b_small.json")
     assert len(names) == 1 and "boot_block" in names[0], names
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (1000, 2), generator=_gen(cuda),
+                          dtype=torch.int32, device=cuda)
+    s1 = cf.fft_real(x[:1], 65536)[0].contiguous()
+    names = _device_kernels(
+        lambda: cf.noise_bootstrap_peaks(s1, seeds, 44100, 65536),
+        tmp_path / "k6.json")
+    assert len(names) == 3, names
+    assert ("fft_real_cols" in names[0] and "NoiseLoad" in names[0]
+            and "boot_rows" in names[1] and "boot_cols" in names[2]), names
+    s1 = cf.fft_real(short[:1], 4096)[0].contiguous()
+    names = _device_kernels(
+        lambda: cf.noise_bootstrap_peaks(s1, seeds[:999], 1500, 4096),
+        tmp_path / "k6_small.json")
+    assert len(names) == 1 and "boot_block" in names[0], names
+    base, tau, gains, snr, sd, fade = _scene_inputs(cuda, 4, 4, 1, 44356,
+                                                    44100)
+    pi, pj = _pairs(4)
+    mask = cf.band_mask(65536, (300.0, 3400.0), 44100.0, device=cuda)
+    names = _device_kernels(
+        lambda: cf.delay_sum(base, tau, gains, 65536, 44100, fade, True,
+                             snr, sd), tmp_path / "k3.json")
+    assert len(names) == 4, names
+    assert ("fft_real_cols" in names[0] and "render_rows" in names[1]
+            and "render_cols" in names[2]
+            and "render_finalize" in names[3]), names
+    sigs = cf.delay_sum(base, tau, gains, 65536, 44100, fade, True, snr, sd)
+    names = _device_kernels(
+        lambda: cf.gcc_windowed(sigs, pi, pj, 65536, 6, mask),
+        tmp_path / "k2.json")
+    assert len(names) == 3, names
+    assert ("fft_real_cols" in names[0] and "gcc_rows" in names[1]
+            and "window_cols" in names[2]), names
+    names = _device_kernels(
+        lambda: cf.scene_windowed(base, tau, gains, pi, pj, 65536, 44100, 6,
+                                  fade, mask, snr, sd), tmp_path / "k5.json")
+    assert len(names) == 7, names
+    assert ("render_finalize" in names[3] and "PackedLoad" in names[4]
+            and "window_cols" in names[6]), names
     xr, xi = _planes(cuda, 8, 512)
     for rep in (1, 3):
         names = _device_kernels(lambda: rd.row_stages(xr, xi, rep=rep),
@@ -166,7 +209,8 @@ def test_bootstrap_peaks_kernel_matches_plain(cuda, rows, length, nfft):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,n_samp,nfft", [(1000, 44100, 65536),
                                               (999, 1500, 4096),
-                                              (3, 100, 128)])
+                                              (3, 100, 128),
+                                              (3, 100000, 1 << 21)])
 def test_noise_bootstrap_peaks_kernel_matches_plain(cuda, rows, n_samp, nfft):
     """K6: the twin's integers are the same on the card and the CPU, and the
     kernel's peaks equal the twin's (odd draw counts; n_samp <= nfft/2 is
@@ -186,6 +230,28 @@ def test_noise_bootstrap_peaks_kernel_matches_plain(cuda, rows, n_samp, nfft):
     torch.cuda.synchronize()
     assert got.shape == (rows,)
     assert float((got - want).abs().max()) < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n_samp,nfft", [(1000, 44100, 65536),
+                                              (999, 1500, 4096),
+                                              (3, 100000, 131072),
+                                              (2, 6000, 8192), (3, 100, 128)])
+def test_noise_bootstrap_equals_bootstrap_on_its_draws(cuda, rows, n_samp,
+                                                       nfft):
+    """K6 runs K4b's schedules (one block up to 4096, the split above) with
+    the draws made where they are read: on the same draws, made by the
+    twin (``noise_ops.uniform``), its peaks are K4b's element for
+    element."""
+    g = _gen(cuda, 7)
+    s1 = cf.fft_real_plain(torch.randn((1, n_samp), generator=g,
+                                       device=cuda), nfft)[0].contiguous()
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (rows, 2), generator=g,
+                          dtype=torch.int32, device=cuda)
+    got = cf.noise_bootstrap_peaks(s1, seeds, n_samp, nfft)
+    want = cf.bootstrap_peaks(s1, noise_ops.uniform(seeds, n_samp), nfft)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -495,7 +561,10 @@ def test_philox_bits_match_on_the_card(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("scenes,m,length,nfft,wq", [
     (1, 4, 44100, 65536, 21), (512, 4, 44100, 65536, 6),
-    (2, 3, 3000, 4096, 2), (3, 5, 1500, 2048, 4)])
+    (2, 3, 3000, 4096, 2), (3, 5, 1500, 2048, 4), (3, 3, 6000, 8192, 2),
+    (2, 5, 7000, 8192, 16), (1, 8, 44100, 65536, 6),
+    (2, 4, 200000, 1 << 18, 3), (1, 4, 300000, 1 << 19, 21),
+    (1, 3, 600000, 1 << 20, 4)])
 def test_gcc_windowed_kernel_matches_plain(cuda, scenes, m, length, nfft,
                                            wq):
     sig = torch.randn((scenes, m, length), generator=_gen(cuda), device=cuda)
@@ -516,7 +585,9 @@ def test_gcc_windowed_kernel_matches_plain(cuda, scenes, m, length, nfft,
 @pytest.mark.cuda
 @pytest.mark.parametrize("scenes,m,paths,total,out,nfft", [
     (512, 4, 1, 44356, 44100, 65536), (1, 4, 22, 50292, 44100, 65536),
-    (3, 3, 5, 3500, 3000, 4096)])
+    (3, 3, 5, 3500, 3000, 4096), (512, 4, 37, 4400, 4000, 8192),
+    (3, 3, 5, 7000, 6000, 8192), (2, 8, 3, 40000, 30000, 1 << 19),
+    (1, 2, 2, 600000, 500000, 1 << 20)])
 def test_delay_sum_noise_kernel_matches_plain(cuda, scenes, m, paths, total,
                                               out, nfft):
     base, tau, gains, snr, seeds, fade = _scene_inputs(cuda, scenes, m,
@@ -553,6 +624,33 @@ def test_scene_windowed_kernel_matches_plain_and_split(cuda, scenes, m,
     # Against the split kernels: the same arithmetic in the same order.
     assert float((win - w3).abs().max()) < 1e-6
     assert torch.equal(stats[..., 2], s3[..., 2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenes,m,paths,total,out,nfft,wq", [
+    (3, 3, 2, 7000, 6000, 8192, 2), (1, 4, 22, 50292, 44100, 65536, 21),
+    (3, 5, 1, 8192, 8192, 8192, 4), (2, 11, 1, 44356, 44100, 65536, 6)])
+def test_scene_windowed_split_shapes(cuda, scenes, m, paths, total, out,
+                                     nfft, wq):
+    """K5 on the split at odd mic counts (packed rows across scenes) and
+    the api's single scene, and with 11 mics, whose GCC stage takes the
+    passes while the render stays on the split: against the twin and,
+    bit for bit where it matters, against K3 then K2."""
+    base, tau, gains, snr, seeds, fade = _scene_inputs(cuda, scenes, m,
+                                                       paths, total, out)
+    pi, pj = _pairs(m)
+    mask = cf.band_mask(nfft, (300.0, 3400.0), 16000.0, device=cuda)
+    win, stats = cf.scene_windowed(base, tau, gains, pi, pj, nfft, out, wq,
+                                   fade, mask, snr, seeds)
+    w2, s2 = cf.scene_windowed_plain(base, tau, gains, pi, pj, nfft, out,
+                                     wq, fade, mask, snr, seeds)
+    sigs = cf.delay_sum(base, tau, gains, nfft, out, fade, True, snr, seeds)
+    w3, s3 = cf.gcc_windowed(sigs, pi, pj, nfft, wq, mask)
+    torch.cuda.synchronize()
+    assert float((win - w2).abs().max()) < 2e-5
+    assert float((win - w3).abs().max()) < 1e-6
+    assert torch.equal(stats[..., 2], s3[..., 2])
+    assert float((stats - s3).abs().max()) < 1e-6
 
 
 _SPEC = SweepSpec(fs=16000.0, duration=0.1, signal_type="noise",

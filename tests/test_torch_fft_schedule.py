@@ -34,6 +34,7 @@ import pytest
 import torch
 
 from pyaudiolocalization_tpu_torch.ops import cuda_fft as cf
+from pyaudiolocalization_tpu_torch.ops import noise as noise_ops
 
 S = 16          # kStrip in csrc/fft.cuh
 
@@ -472,3 +473,357 @@ def test_row_stages_schedule_matches_fft(n2):
     acc = rng.standard_normal((3, n2, 128))
     got = row_stages_model(xr, xi, n2, inverse=True, out_r=acc, mode=2)
     assert np.abs(got - (acc + inv.real)).max() < tol
+
+
+# ---------------------------------------------------------------------------
+# K6's loader; the render and windowed-GCC stages on the split (K3, K2, K5)
+# ---------------------------------------------------------------------------
+
+def _strip_points(n1, n2):
+    """Point t that pass 1 (``fft_real_cols``) loads into slot idx = j1*S +
+    s of column strip c0 = b*S: (n2 / S, n1 * S)."""
+    idx = np.arange(n1 * S)
+    return (idx // S) * n2 + np.arange(n2 // S)[:, None] * S + idx % S
+
+
+def noise_rows_model(seeds, n_samp, n):
+    """``NoiseLoad`` as the kernels call it -> (rows, n) draws, and the
+    count of reads of each point: draw d = 2c + h of packed row c, point t
+    = Philox word 0 at counter t with key seeds[d] as int32 times 2^-32
+    for t < n_samp, else 0.  One block (n <= 4096) reads t = thread + u *
+    blockDim; the split's pass 1 reads ``_strip_points``."""
+    rows = seeds.shape[0]
+    n1, n2 = cf.fft_real_split(n)
+    t = (np.arange(n) if n1 == 1 else _strip_points(n1, n2).ravel())
+    reads = np.bincount(t, minlength=n)
+    key = seeds.astype(np.int64) & 0xFFFFFFFF
+    w0, _ = noise_ops.philox_bits(torch.from_numpy(key[:, :1]),
+                                  torch.from_numpy(key[:, 1:]),
+                                  torch.from_numpy(t.astype(np.int64)))
+    w0 = w0.numpy()
+    draws = np.where(w0 >= 2 ** 31, w0 - 2 ** 32, w0).astype(np.float32)
+    out = np.zeros((rows, n), np.float32)
+    out[:, t] = np.where(t < n_samp, draws * np.float32(2.0 ** -32), 0.0)
+    return out, reads
+
+
+@pytest.mark.parametrize("n,n_samp", [(128, 100), (4096, 1500),
+                                      (8192, 8192), (65536, 44100),
+                                      (131072, 44100)])
+def test_noise_loader_counter_map(n, n_samp):
+    """Every draw reads each sample t once, at slot t (counter t), zero
+    from n_samp on: the loaded rows are ``noise_ops.uniform`` zero-padded,
+    so K6 is K4b on those rows (the model's peaks against the twin's)."""
+    rng = np.random.default_rng(n)
+    seeds = rng.integers(-2 ** 31, 2 ** 31, (3, 2)).astype(np.int32)
+    rows, reads = noise_rows_model(seeds, n_samp, n)
+    assert np.array_equal(reads, np.ones(n, int))
+    want = noise_ops.uniform(torch.from_numpy(seeds), n_samp).numpy()
+    assert np.array_equal(rows[:, :n_samp], want)
+    assert not rows[:, n_samp:].any()
+    if n <= 8192:
+        s1 = rng.standard_normal(n // 2 + 1) + 1j * rng.standard_normal(
+            n // 2 + 1)
+        x = rows.astype(np.float64)
+        peaks, _ = bootstrap_peaks_model(s1, x, n)
+        plain = cf.noise_bootstrap_peaks_plain(
+            torch.from_numpy(s1), torch.from_numpy(seeds), n_samp, n).numpy()
+        assert np.abs(peaks - plain).max() < 1e-9 * np.abs(plain).max()
+
+
+def _block_tasks(nb, strip, n1, n2):
+    """Every row-pass block's mirror-pair tasks (``pair_task``) at once:
+    (block, slot, k2, row, partner slot, partner k2, lower bin q, whether
+    (slot, k2) holds q)."""
+    parts = [(np.full(len(r), b),) + tuple(_boot_tasks(b, strip, n1, n2))
+             for b, r in ((b, _boot_tasks(b, strip, n1, n2)[0])
+                          for b in range(nb))]
+    bi, r, k2, row, pr, pk = (np.concatenate(a) for a in zip(*parts))
+    slot_rows = _slot_rows(n1, strip)
+    p = row + n1 * k2
+    mirror = slot_rows[bi, pr] + n1 * pk
+    n = n1 * n2
+    assert ((p + mirror) % n == 0).all()
+    low = p <= n // 2
+    return bi, r, k2, pr, pk, np.where(low, p, mirror), low
+
+
+def _store_pairs(work, tasks, ya, yb, n):
+    """``store_pair`` of every task into work (blocks, n2, S): bins q and
+    n - q of the packed Hermitian pair ya + i*yb, imaginary parts dropped
+    at DC and Nyquist.  Asserts that the tasks write every place once."""
+    bi, r, k2, pr, pk, q, low = tasks
+    edge = (q == 0) | (q == n // 2)
+    ya = np.where(edge, ya.real, ya)
+    yb = np.where(edge, yb.real, yb)
+    vq, vm = ya + 1j * yb, np.conj(ya) + 1j * np.conj(yb)
+    seen = np.zeros(work.shape, int)
+    at = (bi, np.where(low, k2, pk), np.where(low, r, pr))
+    mi = (bi, np.where(low, pk, k2), np.where(low, pr, r))
+    work[at] = vq
+    np.add.at(seen, at, 1)
+    work[tuple(a[~edge] for a in mi)] = vm[~edge]
+    np.add.at(seen, tuple(a[~edge] for a in mi), 1)
+    assert np.array_equal(seen, np.ones_like(seen))
+
+
+def _pair_bins(strips, tasks):
+    """(Z[q], Z[n - q]) of every task from strips (blocks, n2, S)."""
+    bi, r, k2, pr, pk, q, low = tasks
+    zr, zp = strips[bi, k2, r], strips[bi, pk, pr]
+    return np.where(low, zr, zp), np.where(low, zp, zr)
+
+
+def _rows_back(work, slot_rows, n1, n2):
+    """The inverse row DFTs of work (blocks, n2, S) times W_n^{-j2 k1},
+    as rows k1 of a (n1, n2) pass-1 layout (``store_rows``)."""
+    inv = block_fft(work, -1.0)
+    lo, hi = _split_tables(n1 * n2, n1, n2)
+    e = np.arange(n2)[None, :, None] * slot_rows[:, None, :]
+    out = np.zeros((n1, n2), complex)
+    out[slot_rows, :] = (inv * np.conj(_split_twiddle(lo, hi, e, n1))
+                         ).transpose(0, 2, 1)
+    return out
+
+
+def _cols_back(y, n1, n2):
+    """The inverse column DFTs of y (rows, n1, n2) by strips of S columns
+    (``cols_inverse``): (rows, n2 / S, n1, S), slot (j1, s) of strip b
+    holding sample n2*j1 + b*S + s."""
+    rows = y.shape[0]
+    return block_fft(y.reshape(rows, n1, n2 // S, S).transpose(0, 2, 1, 3),
+                     -1.0)
+
+
+def _mic_response(tau, gain, q, n):
+    """``mic_response``: sum_p g_p exp(-2 pi i q tau_p / n), the phase
+    reduced by whole turns."""
+    turns = q[:, None] * tau[None, :] / n
+    turns -= np.floor(turns)
+    return (gain[None, :] * np.exp(-2j * np.pi * turns)).sum(-1)
+
+
+def render_split_model(base, tau, gain, n, strip=S):
+    """K3's render stage on the split: base (scenes, len), tau / gain
+    (scenes, mics, paths) -> (scenes, mics, n) the packed inverse of the
+    mixes over n (natural order).  ``render_rows``: block (b, cb) of the
+    packed base row cb mixes packed mic rows [cb * mics, (cb + 1) *
+    mics), one at a time; ``render_cols`` writes in place."""
+    scenes = base.shape[0]
+    mics, paths = tau.shape[1:]
+    n1, n2 = cf.fft_real_split(n)
+    y = _cols_pass(_pack(base, n), n1, n2)
+    slot_rows = _slot_rows(n1, strip)
+    nb = n1 // strip
+    bufs = block_fft(y[:, slot_rows, :].transpose(0, 1, 3, 2))
+    tasks = _block_tasks(nb, strip, n1, n2)
+    q = tasks[5]
+    rows = scenes * mics
+    packed = (rows + 1) // 2
+    tau_r, gain_r = tau.reshape(rows, paths), gain.reshape(rows, paths)
+    z = np.full((packed, n1, n2), np.nan, complex)
+    for cb in range(bufs.shape[0]):
+        zq, zm = _pair_bins(bufs[cb], tasks)
+        for pm in range(cb * mics, min((cb + 1) * mics, packed)):
+            ra, rb = 2 * pm, 2 * pm + 1
+            assert ra // mics >> 1 == cb and (rb >= rows or rb // mics >> 1
+                                              == cb)
+            ya = _split_bin(zq, zm, (ra // mics) & 1) * _mic_response(
+                tau_r[ra], gain_r[ra], q, n)
+            yb = np.zeros_like(ya)
+            if rb < rows:
+                yb = _split_bin(zq, zm, (rb // mics) & 1) * _mic_response(
+                    tau_r[rb], gain_r[rb], q, n)
+            work = np.full((nb, n2, strip), np.nan, complex)
+            _store_pairs(work, tasks, ya, yb, n)
+            z[pm] = _rows_back(work, slot_rows, n1, n2)
+    assert not np.isnan(z).any()
+    cols = _cols_back(z, n1, n2)
+    natural = cols.transpose(0, 2, 1, 3).reshape(packed, n)
+    out = np.stack([natural.real, natural.imag], 1).reshape(-1, n)[:rows]
+    return out.reshape(scenes, mics, n) / n
+
+
+def _render_case(rng, scenes, mics, paths, n):
+    length = n - n // 4
+    base = rng.standard_normal((scenes, length))
+    tau = rng.uniform(0, n // 4, (scenes, mics, paths))
+    gain = rng.uniform(0.1, 1.0, (scenes, mics, paths))
+    return base, tau, gain
+
+
+@pytest.mark.parametrize("mics,paths", [(2, 1), (3, 3), (4, 1), (8, 3)])
+@pytest.mark.parametrize("n,strip", [(8192, 16), (16384, 32), (65536, 16)])
+def test_render_split_matches_delay_sum(mics, paths, n, strip):
+    """The render's index maps (a packed base row's scenes to its mic
+    rows, odd mic counts packed across scenes, the mixes on every mirror
+    pair, the inverse row and column passes) at 3 scenes against
+    ``delay_sum_plain``'s transform (no finalize, fade 1)."""
+    rng = np.random.default_rng(mics * 100 + paths + n)
+    base, tau, gain = _render_case(rng, 3, mics, paths, n)
+    got = render_split_model(base, tau, gain, n, strip)
+    t = torch.from_numpy
+    want = cf.delay_sum_plain(t(base), t(tau), t(gain), n, n,
+                              torch.ones(n, dtype=torch.float64),
+                              False).numpy()
+    assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
+
+
+def arg_key(v, j):
+    """``arg_key``: float32 v (-0 as +0) and index j -> the uint64 whose
+    order is v's, then the smallest j."""
+    u = np.where(v == 0, np.float32(0), v).astype(np.float32).view(np.uint32)
+    top = np.where(u & 0x80000000, ~u, u | np.uint32(0x80000000))
+    return (top.astype(np.uint64) << np.uint64(32)) | (
+        ~np.asarray(j).astype(np.uint32)).astype(np.uint64)
+
+
+def arg_unkey(key):
+    top = (key >> np.uint64(32)).astype(np.uint32)
+    u = np.where(top & 0x80000000, top & np.uint32(0x7FFFFFFF), ~top)
+    j = ~(key & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    return u.astype(np.uint32).view(np.float32), j.astype(np.int64)
+
+
+def window_stats_model(cols, n1, n2, w, order):
+    """``window_cols`` on one packed cross row's inverse columns cols (n2
+    / S, n1, S) times 1/n, its blocks taken in ``order``: each block's
+    sum of |corr| (the partials, summed in block order by the last block)
+    and its (max, smallest index) as a 64-bit atomic maximum; the window
+    j < w or j >= n - w.  -> (win (2, 2w), stats (2, 3)) for the real and
+    imaginary parts."""
+    n = n1 * n2
+    nb = n2 // S
+    j = (np.arange(n1)[:, None] * n2 + np.arange(nb)[:, None, None] * S
+         + np.arange(S))                                 # (nb, n1, S)
+    win = np.zeros((2, 2 * w))
+    stats = np.zeros((2, 3))
+    for h, part in enumerate((cols.real / n, cols.imag / n)):
+        partials = np.abs(part).sum(axis=(1, 2))
+        keys = np.zeros((), np.uint64)
+        for b in order:
+            at = np.argmax(part[b].ravel())       # ties: smallest slot
+            top = part[b].ravel()[at]
+            tied = j[b].ravel()[part[b].ravel() == top]
+            keys = max(keys, arg_key(np.float32(top), tied.min()))
+        m, idx = arg_unkey(np.array(keys))
+        stats[h] = partials.sum() / n, m, idx
+        at = np.where(j < w, w + j, np.where(j >= n - w, j - (n - w), -1))
+        win[h, at[at >= 0]] = part[at >= 0]
+    return win, stats
+
+
+def gcc_split_model(sig, pairs_i, pairs_j, n, wq, mask, strip=S, seed=0):
+    """K2's GCC stage on the split: sig (scenes, mics, len) -> (win (scenes,
+    P, 2w), stats (scenes, P, 3)).  ``gcc_rows``: block (b, scene) holds the
+    strips of packed mic rows first .. first + span - 1 (the rows of the
+    scene's mics), and per couple c writes packed cross row scene *
+    couples + c; ``window_cols`` takes its blocks in a shuffled order."""
+    scenes, mics, length = sig.shape
+    n1, n2 = cf.fft_real_split(n)
+    rows = scenes * mics
+    y = _cols_pass(_pack(sig.reshape(rows, length), n), n1, n2)
+    slot_rows = _slot_rows(n1, strip)
+    nb = n1 // strip
+    bufs = block_fft(y[:, slot_rows, :].transpose(0, 1, 3, 2))
+    tasks = _block_tasks(nb, strip, n1, n2)
+    q = tasks[5]
+    pairs = len(pairs_i)
+    couples = (pairs + 1) // 2
+    w = wq * 128
+    rng = np.random.default_rng(seed)
+    win = np.zeros((scenes, 2 * couples, 2 * w))
+    stats = np.zeros((scenes, 2 * couples, 3))
+    for s in range(scenes):
+        row0 = s * mics
+        first = row0 >> 1
+        span = ((row0 + mics - 1) >> 1) - first + 1
+        assert span <= (mics + 1) // 2
+        spectra = {}
+        for r in range(row0, row0 + mics):
+            assert first <= r >> 1 < first + span
+            zq, zm = _pair_bins(bufs[r >> 1], tasks)
+            spectra[r - row0] = _split_bin(zq, zm, r & 1)
+        for c in range(couples):
+            ya = _whiten(spectra[pairs_i[2 * c]], spectra[pairs_j[2 * c]])
+            ya = ya * mask[q]
+            yb = np.zeros_like(ya)
+            if 2 * c + 1 < pairs:
+                yb = _whiten(spectra[pairs_i[2 * c + 1]],
+                             spectra[pairs_j[2 * c + 1]]) * mask[q]
+            work = np.full((nb, n2, strip), np.nan, complex)
+            _store_pairs(work, tasks, ya, yb, n)
+            cross = _rows_back(work, slot_rows, n1, n2)
+            cols = _cols_back(cross[None], n1, n2)[0]
+            order = rng.permutation(n2 // S)
+            cw, cs = window_stats_model(cols, n1, n2, w, order)
+            win[s, 2 * c:2 * c + 2], stats[s, 2 * c:2 * c + 2] = cw, cs
+    return win[:, :pairs], stats[:, :pairs]
+
+
+def _pairs(m):
+    pairs = [(i, j) for i in range(m) for j in range(i + 1, m)]
+    return [p[0] for p in pairs], [p[1] for p in pairs]
+
+
+@pytest.mark.parametrize("scenes,mics,n,wq,strip", [
+    (3, 3, 8192, 2, 16), (2, 4, 8192, 16, 32), (3, 5, 16384, 4, 16),
+    (2, 2, 8192, 32, 16), (1, 4, 65536, 21, 16), (2, 8, 8192, 3, 64)])
+def test_gcc_split_matches_gcc_windowed(scenes, mics, n, wq, strip):
+    """The GCC stage's index maps (a scene's strips across packed rows,
+    odd mic and pair counts, the cross-spectra on every mirror pair, the
+    inverse passes, the window) and its statistics combined from block
+    partials and keys in any block order, against ``gcc_windowed_plain``:
+    the argmax equal, the rest within 1e-9."""
+    rng = np.random.default_rng(scenes * 1000 + mics * 10 + wq)
+    sig = rng.standard_normal((scenes, mics, n - n // 3))
+    pi, pj = _pairs(mics)
+    mask = cf.band_mask(n, (300.0, 3400.0), 16000.0,
+                        dtype=torch.float64).numpy()
+    win, stats = gcc_split_model(sig, pi, pj, n, wq, mask, strip)
+    w2, s2 = cf.gcc_windowed_plain(torch.from_numpy(sig), pi, pj, n, wq,
+                                   torch.from_numpy(mask))
+    w2, s2 = w2.numpy(), s2.numpy()
+    assert np.abs(win - w2).max() < 1e-9 * np.abs(w2).max()
+    assert np.array_equal(stats[..., 2], s2[..., 2])
+    assert np.abs(stats[..., :2] - s2[..., :2]).max() < 1e-6
+
+
+@pytest.mark.parametrize("n", [8192, 65536])
+def test_window_stats_keep_the_smallest_tied_index(n):
+    """A planted tie of the maximum in three blocks, the smallest index in
+    the last block to run, and a silent row whose zeros carry both signs:
+    the keys give the smallest natural index (``torch.argmax``'s first
+    occurrence) whatever the order of the blocks."""
+    n1, n2 = cf.fft_real_split(n)
+    rng = np.random.default_rng(n)
+    corr = rng.uniform(-1, 0.5, n).astype(np.float32)
+    ties = [n2 * 7 + 3, 17, n - 5]            # blocks 0, 1 and the last
+    corr[ties] = 0.75
+    zero = np.where(rng.random(n) < 0.5, np.float32(-0.0), np.float32(0.0))
+    zero[0] = -0.0
+    natural = (corr * n + 1j * zero).astype(complex)
+    cols = natural.reshape(n1, n2 // S, S).transpose(1, 0, 2)
+    for order in (np.arange(n2 // S), np.arange(n2 // S)[::-1],
+                  rng.permutation(n2 // S)):
+        _, stats = window_stats_model(cols, n1, n2, 128, order)
+        assert stats[0, 2] == 17 == int(torch.argmax(torch.from_numpy(corr)))
+        assert stats[0, 1] == np.float32(0.75)
+        assert stats[1, 2] == 0 and stats[1, 1] == 0
+
+
+@pytest.mark.parametrize("n,mics,want", [
+    (4096, 4, (0, 0)), (8192, 3, (128, 128)), (65536, 4, (256, 256)),
+    (65536, 10, (256, 256)), (65536, 11, (256, 0)), (1 << 18, 4, (512, 512)),
+    (1 << 18, 8, (512, 0)), (1 << 19, 4, (1024, 1024)), (1 << 20, 2, (0, 0))])
+def test_scene_stages_rule(n, mics, want):
+    """One rule for K3, K2 and K5 (``scene_stages``): K4a's split from
+    8,192 on, each stage where its row pass's strips (the render's two,
+    the GCC's (mics + 1) // 2 + 1) fit one block's shared memory; the
+    radix-2 passes up to 4,096 and where they do not fit."""
+    got = cf.scene_stages(n, mics)
+    assert got == want
+    for n1, strips in zip(got, (2, (mics + 1) // 2 + 1)):
+        if n1:
+            assert n1 == cf.fft_real_split(n)[0]
+            assert cf._row_pass_smem(n1, n // n1, strips) <= cf.SMEM_OPTIN

@@ -31,12 +31,17 @@ shapes (``K4A_SHAPES``).  ``boot`` (``--boot``, alone) times K4b at the
 permutation null's shapes (``BOOT_SHAPES``) and K7 against ``torch.sgn``
 at one scene's spectrum, by CUDA events and in device time with the
 device kernels a call runs, and the host time of each step of a wrapper's
-launch path over 10,000 calls (``host_steps``).
+launch path over 10,000 calls (``host_steps``).  ``k6`` (``--k6``) times
+K6 at the noise null's shapes (``K6_SHAPES``) and ``scene``
+(``--scene``) K5, K3 and K2 at the sweep's, the api's, an odd mic count's
+and the reverberant render's shapes (``SCENE_SHAPES``), each case held
+against its twin, by CUDA events and in device time by kernel.
 
 It imports numpy and torch only.  Run from the repository root on the
 machine with the card:
 
-    python tools/torch_rowdft_bench.py [--reps 5] [--k4a | --boot]
+    python tools/torch_rowdft_bench.py [--reps 5] [--k4a | --boot | --k6 |
+                                        --scene]
 
 ``chip_smoke.py`` runs it once as its phase 7 (``run``).  To A/B two
 versions of the package in one call, run this file from a copy of each
@@ -77,6 +82,20 @@ BOOT_SHAPES = ((1000, 44100, 65536), (1000, 44100, 131072),
                (2, 44100, 65536), (999, 3000, 4096))
 K7_SHAPE = (1, 44100)
 HOST_CALLS = 10_000
+# K6 at the noise null's shapes (draws, n_samp, nfft): the main path's and
+# no_gate's lengths, two draws and one block; the card tests' limit.
+K6_SHAPES = ((1000, 44100, 65536), (1000, 44100, 131072), (2, 44100, 65536),
+             (999, 1500, 4096))
+# K5, K3 and K2 (scenes, mics, paths, padded length, samples, nfft, wq):
+# the fused sweep's 512 scenes, the api's scene (22 paths), an odd mic
+# count on the split and the reverberant SRP sweep's render (K3 only).
+SCENE_SHAPES = {"sweep": (512, 4, 1, 44356, 44100, 65536, 6),
+                "api": (1, 4, 22, 50292, 44100, 65536, 21),
+                "odd": (3, 3, 2, 7000, 6000, 8192, 2),
+                "reverb": (512, 4, 37, 4400, 4000, 8192, None)}
+# Absolute limits against the twins (chip_smoke's phase 3): the render's
+# finalized signals and the windows of correlations, bounded by 1.
+SCENE_TOL = {"scene_windowed": 1e-5, "delay_sum": 2e-5, "gcc_windowed": 1e-6}
 
 
 def time_ms(fn, reps: int, loops: int = 3):
@@ -318,6 +337,108 @@ def boot(reps: int = 10, log=print) -> dict:
     return out
 
 
+def k6(reps: int = 10, log=print) -> dict:
+    """K6 against its twin at ``K6_SHAPES``: CUDA-event ms per call
+    (``time_ms``, median of three loops) and device ms per call by kernel
+    with the device kernels a call runs (``device_ms``).  Logs one line
+    per shape and returns {shape: {"ms", "device"}}."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for rows, n_samp, nfft in K6_SHAPES:
+        s1 = cf.fft_real_plain(torch.randn((1, n_samp), generator=gen,
+                                           device=dev), nfft)[0].contiguous()
+        seeds = torch.randint(-2 ** 31, 2 ** 31, (rows, 2), generator=gen,
+                              dtype=torch.int32, device=dev)
+        call = lambda: cf.noise_bootstrap_peaks(  # noqa: E731
+            s1, seeds, n_samp, nfft)
+        got, ms = time_ms(call, reps)
+        err = float((got - cf.noise_bootstrap_peaks_plain(
+            s1, seeds, n_samp, nfft)).abs().max())
+        if not err <= BOOT_TOL:
+            raise AssertionError(f"K6 {rows} x {n_samp} -> {nfft}: max "
+                                 f"|kernel - plain| = {err:.3e}")
+        res = {"ms": ms, "device": device_ms(call, 5)}
+        out[(rows, n_samp, nfft)] = res
+        log(f"K6 {rows} x {n_samp} -> {nfft}: {ms:.4f} ms; device "
+            f"{res['device']['total']:.4f} ms in "
+            f"{res['device']['kernels']:g} kernels a call "
+            f"({_split(res['device'])}); max |kernel - plain| {err:.2e}")
+    return out
+
+
+def scene_inputs(gen, scenes, mics, paths, total, out):
+    """A sweep-like batch: scenes' base signals (scenes, total) zero past
+    ``out``, delays (scenes, mics, paths) in samples, gains with the
+    strongest path at 1, SNRs in [20, 40) dB, seeds and the fade."""
+    from pyaudiolocalization_tpu_torch.ops.delay import fade_window
+    dev = torch.device("cuda")
+    base = torch.zeros((scenes, total), device=dev)
+    base[:, :out] = torch.randn((scenes, out), generator=gen, device=dev)
+    tau = torch.rand((scenes, mics, paths), generator=gen,
+                     device=dev) * (total - out)
+    gains = torch.rand((scenes, mics, paths), generator=gen, device=dev)
+    gains[..., 0] = 1.0
+    snr = 20.0 + 20.0 * torch.rand(scenes, generator=gen, device=dev)
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (scenes, 2), generator=gen,
+                          dtype=torch.int32, device=dev)
+    fade = fade_window(total, dtype=torch.float32, device=dev)[:out]
+    return (base, tau.contiguous(), gains.contiguous(), snr, seeds,
+            fade.contiguous())
+
+
+def scene(reps: int = 5, log=print) -> dict:
+    """K5 (``scene_windowed``), K3 (``delay_sum`` with finalize and noise)
+    and K2 (``gcc_windowed`` on K3's signals) at ``SCENE_SHAPES``, each
+    held against its twin within ``SCENE_TOL``: CUDA-event ms per call and
+    device ms per call by kernel.  Logs one line per kernel and shape and
+    returns {(name, shape): {"ms", "device"}}."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for shape, (scenes, mics, paths, total, n, nfft, wq) in \
+            SCENE_SHAPES.items():
+        base, tau, gains, snr, seeds, fade = scene_inputs(
+            gen, scenes, mics, paths, total, n)
+        pairs = [(i, j) for i in range(mics) for j in range(i + 1, mics)]
+        pi, pj = [p[0] for p in pairs], [p[1] for p in pairs]
+        mask = cf.band_mask(nfft, (300.0, 3400.0), 44100.0, device=dev)
+        render = (base, tau, gains, nfft, n, fade, True, snr, seeds)
+        sigs = cf.delay_sum(*render)
+        cases = {"delay_sum": (lambda: cf.delay_sum(*render),
+                               lambda: cf.delay_sum_plain(*render))}
+        if wq is not None:
+            fused = (base, tau, gains, pi, pj, nfft, n, wq, fade, mask, snr,
+                     seeds)
+            cases["gcc_windowed"] = (
+                lambda: cf.gcc_windowed(sigs, pi, pj, nfft, wq, mask),
+                lambda: cf.gcc_windowed_plain(sigs, pi, pj, nfft, wq, mask))
+            cases["scene_windowed"] = (
+                lambda: cf.scene_windowed(*fused),
+                lambda: cf.scene_windowed_plain(*fused))
+        for name, (call, twin) in cases.items():
+            got, ms = time_ms(call, reps)
+            want = twin()
+            got, want = ((got, want) if name == "delay_sum"
+                         else (got[0], want[0]))
+            err = float((got - want).abs().max())
+            if not err <= SCENE_TOL[name]:
+                raise AssertionError(f"{name} {shape}: max |kernel - plain| "
+                                     f"= {err:.3e}")
+            res = {"ms": ms, "device": device_ms(call, 3)}
+            out[(name, shape)] = res
+            log(f"{name} [{shape}] {scenes} x {mics} mics x {paths} paths "
+                f"-> {nfft}: {ms:.4f} ms; device "
+                f"{res['device']['total']:.4f} ms in "
+                f"{res['device']['kernels']:g} kernels a call "
+                f"({_split(res['device'])}); max |kernel - plain| "
+                f"{err:.2e}")
+            del got
+        del sigs
+        torch.cuda.empty_cache()
+    return out
+
+
 def host_steps(spec: torch.Tensor, log=print, calls: int = HOST_CALLS):
     """Host time per call (µs: ``time.perf_counter`` around ``calls``
     calls, synchronized at both ends) of each step of a wrapper's launch
@@ -373,6 +494,11 @@ def main() -> int:
     ap.add_argument("--boot", action="store_true",
                     help="time only K4b and K7 at the production shapes, "
                          "and the wrappers' host steps")
+    ap.add_argument("--k6", action="store_true",
+                    help="time only K6 at the noise null's shapes")
+    ap.add_argument("--scene", action="store_true",
+                    help="time only K5, K3 and K2 at the sweep's, the "
+                         "api's, an odd and the reverberant shapes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_rowdft_bench: needs an NVIDIA card", file=sys.stderr)
@@ -389,6 +515,12 @@ def main() -> int:
 
     if args.boot:
         boot(2 * args.reps, log)
+        return 0
+    if args.k6 or args.scene:
+        if args.k6:
+            k6(2 * args.reps, log)
+        if args.scene:
+            scene(args.reps, log)
         return 0
     run(args.reps, log)
     if args.k4a:
