@@ -17,7 +17,10 @@ Drives the port's main paths on ``cuda`` at full width (4 mics, 44.1 kHz,
    time and kernels per call, as K5, K3 and K2 at the sweep's and the
    api's shapes; K3, K2 and K5 also at an odd mic count on the split, K5
    at the api's scene, each within 1e-6 of K3 then K2; K7 also on a view
-   that starts one bin in, with its device time and ``torch.sgn``'s);
+   that starts one bin in, with its device time and ``torch.sgn``'s; K1
+   and K9 at every shape with their device time and the device kernels a
+   call runs, held to their schedule: K1 3 on the split, 1 in one block,
+   and 11 mics at 65,536 on the passes; K9 2 and 1, also at 131,072);
    for K10's three kernels (``ops/rowdft.py``) the cases phase 7 does not
    run: the
    inverse, rep = 8 and zero_top at n2 = 64 and 1024, the lane DFT's
@@ -107,10 +110,13 @@ MXU_TOOL = "tools/mxu_rowdft_bench.py"
 PALLAS = "pyaudiolocalization_tpu/ops/pallas_fft.py"
 PALLAS_KERNELS = "pyaudiolocalization_tpu/ops/pallas_kernels.py"
 NULL_DRAWS = 1000
-# Phase 3's cases added after their kernel's first slice: (kernel, tag).
-ADDED = {("delay_sum", "odd"), ("gcc_windowed", "odd"),
-         ("noise_bootstrap_peaks", "no_gate"), ("scene_windowed", "api"),
-         ("scene_windowed", "odd")}
+# Phase 3's cases added after their kernel's first slice: (kernel, tag) ->
+# the seed of the random stream they draw from (each later group its own,
+# so that adding cases leaves every earlier case's inputs as they were).
+ADDED = {("delay_sum", "odd"): 1, ("gcc_windowed", "odd"): 1,
+         ("noise_bootstrap_peaks", "no_gate"): 1, ("scene_windowed", "api"): 1,
+         ("scene_windowed", "odd"): 1, ("gcc_all_pairs", "passes"): 2,
+         ("whitened_corr", "no_gate"): 2}
 
 # name -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -229,12 +235,12 @@ def kernel_phase(cf, torch):
     # Cases added in a later slice (ADDED) draw from a stream of their own,
     # so that adding a case leaves the inputs of every other case as they
     # were.
-    streams = {False: torch.Generator(device=dev).manual_seed(0),
-               True: torch.Generator(device=dev).manual_seed(1)}
-    stream = [streams[False]]
+    streams = {seed: torch.Generator(device=dev).manual_seed(seed)
+               for seed in {0, *ADDED.values()}}
+    stream = [streams[0]]
 
     def draw(kernel, tag):
-        stream[0] = streams[(kernel, tag) in ADDED]
+        stream[0] = streams[ADDED.get((kernel, tag), 0)]
 
     def randn(*shape):
         return torch.randn(shape, generator=stream[0], device=dev)
@@ -266,10 +272,16 @@ def kernel_phase(cf, torch):
     bench = _load_tool("torch_rowdft_bench")
     device_ms = bench.device_ms
 
-    def log_device(name, fn, calls=5):
+    def log_device(name, fn, calls=5, kernels=None):
+        """Logs the device time and kernels per call (``torch.profiler``);
+        raises unless a call runs ``kernels`` device kernels, where
+        given."""
         dev_k = device_ms(fn, calls)
         log(f"{name} device time per call: {dev_k['total']:.4f} ms in "
             f"{dev_k['kernels']:g} kernels ({bench._split(dev_k)})")
+        if kernels is not None and dev_k["kernels"] != kernels:
+            raise AssertionError(f"{name}: {dev_k['kernels']:g} device "
+                                 f"kernels a call, want {kernels}")
 
     results = {}
     reverb, multi = srp_specs()
@@ -319,7 +331,9 @@ def kernel_phase(cf, torch):
     # whitening every bin (the Wiener front end has no band).  A scene
     # axis: bench_gcc_phat's batch (recorded; PHAT over every bin), the
     # reverberant SRP sweep's and the multi-source cube's, and an odd edge
-    # (odd scenes, mics and pairs).
+    # (odd scenes, mics and pairs).  The split at 65,536 and 131,072 (3
+    # device kernels a call), one block at 4,096 and below (1); "passes":
+    # 11 mics at 65,536, whose strips do not fit the split.
     for tag, (b, m, length, nfft, band) in {
             "api": (None, 4, N, NFFT, (300.0, 3400.0)),
             "no_gate": (None, 4, N, 2 * NFFT, None),
@@ -328,7 +342,9 @@ def kernel_phase(cf, torch):
                        (300.0, 3400.0)),
             "multi": (MULTI_SCENES, 8, multi.num_samples, multi.nfft,
                       (300.0, 3400.0)),
-            "edge": (5, 3, 1500, 2048, (300.0, 3400.0))}.items():
+            "edge": (5, 3, 1500, 2048, (300.0, 3400.0)),
+            "passes": (None, 11, N, NFFT, (300.0, 3400.0))}.items():
+        draw("gcc_all_pairs", tag)
         pi, pj = pairs(m)
         sig = (randn(m, length) if b is None
                else randn(b, m, length)).contiguous()
@@ -341,6 +357,10 @@ def kernel_phase(cf, torch):
             lambda: cf.gcc_all_pairs_plain(sig, pi, pj, nfft, mask),
             tol=1e-6, reps=20 if scenes == 1 else 3,
             least=bound(nbytes, gcc_ops(scenes, m, len(pi), nfft)))
+        n1 = cf.gcc_schedule(nfft, m)
+        log_device(f"gcc_all_pairs[{tag}] (schedule n1={n1})",
+                   lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
+                   kernels={1: 1, 0: None}.get(n1, 3))
         if tag == "main":
             results["gcc_all_pairs"] = res
 
@@ -479,10 +499,13 @@ def kernel_phase(cf, torch):
             results["whiten"] = res
 
     # K9: whitened correlation of two K4a spectra, no band
-    # (phat_correlation).  Main: the single pair at nfft 65,536; edge:
-    # three row pairs.
+    # (phat_correlation).  Main: the single pair at nfft 65,536; no_gate's
+    # 131,072 (both on the split, 2 device kernels a call); edge: three row
+    # pairs in one block (1).
     for tag, (rows_n, length, nfft) in {"main": (1, N, NFFT),
-                                        "edge": (3, 3000, 4096)}.items():
+                                        "edge": (3, 3000, 4096),
+                                        "no_gate": (1, N, 2 * NFFT)}.items():
+        draw("whitened_corr", tag)
         spec = cf.fft_real_plain(randn(2 * rows_n, length), nfft)
         a, b = spec[:rows_n].contiguous(), spec[rows_n:].contiguous()
         mask = cf.band_mask(nfft, None, None, device=dev)
@@ -494,6 +517,10 @@ def kernel_phase(cf, torch):
             tol=1e-6, reps=20,
             least=bound(16 * rows_n * bins + 4 * bins + 4 * rows_n * nfft,
                         rows_n * (_rfft_ops(nfft) + (nfft // 2) * 15)))
+        n1 = cf.corr_schedule(nfft)
+        log_device(f"whitened_corr[{tag}] (schedule n1={n1})",
+                   lambda: cf.whitened_corr(a, b, mask, nfft),
+                   kernels={1: 1, 0: None}.get(n1, 2))
         if tag == "main":
             results["whitened_corr"] = res
 

@@ -11,10 +11,10 @@
 //    shared memory a block can hold, so every pass streams the rows
 //    through device memory (and the 50 MB L2): 16 bytes per point per
 //    pass, about 16 * log2(n) bytes per point and transform, and one
-//    launch per pass.  K1 and K9 run on it, K2, K3 and K5 up to 4096
-//    points and where their split's strips do not fit, K4b and K6 above
-//    2^20; they fuse their first or last pass into a prologue or
-//    epilogue.
+//    launch per pass.  K2, K3 and K5 run on it up to 4096 points, K1
+//    where neither one block nor its split's strips fit, K2, K3 and K5
+//    where theirs do not, and K1, K4b, K6 and K9 above 2^20; they fuse
+//    their first or last pass into a prologue or epilogue.
 //
 // 2. On-chip sub-transforms (`block_fft`): one block transforms S
 //    sequences of length L (L * S <= kElems * 1024) held in shared memory,
@@ -27,10 +27,12 @@
 //    caller loads the strip with coalesced reads and hands the result to
 //    its own epilogue, so a launch moves 16 bytes per complex point (8 in,
 //    8 out), not 16 per point per pass.  A longer row is a four-step
-//    product n = n1 * n2 of two such launches (K4a; K4b, K6, and K3's
+//    product n = n1 * n2 of two such launches (K4a; K4b, K6, K1, and K3's
 //    render and K2's GCC stages, both of them in K5, run it forward and
-//    back in three, the middle one holding the rows for both directions);
-//    the length-n2 rows of a (n2, 128) plane are one (K10b).
+//    back in three, the middle one holding the rows for both directions;
+//    K9 runs the back half in two); the length-n2 rows of a (n2, 128)
+//    plane are one (K10b).  Up to 4096 points one block holds a whole row
+//    (K4a, K4b, K6, K1, K9).
 //    Bound: device memory, one read and one write per launch.
 #pragma once
 

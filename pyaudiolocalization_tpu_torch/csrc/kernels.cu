@@ -1333,8 +1333,9 @@ render_cols(int n1, int n2, const float2* __restrict__ tw, float2* z) {
 // rows k1 of each packed mic row that holds one of the scene's mics (with
 // an odd mic count a packed row may hold the last mic of one scene and the
 // first of the next), then for every gridDim.z-th couple c from the g-th
-// writes packed cross row scene * couples + c.  Block (0, scene, 0) clears
-// the couples' argmax keys and block counters for `window_cols`.
+// writes packed cross row scene * couples + c.  Where keys is not null
+// (K2), block (0, scene, 0) clears the couples' argmax keys and block
+// counters for `window_cols`; K1's `corr_cols` needs neither.
 template <int kMaxThreads, int kMinBlocks>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 gcc_rows(const int* __restrict__ pairs_i, const int* __restrict__ pairs_j,
@@ -1358,7 +1359,7 @@ gcc_rows(const int* __restrict__ pairs_i, const int* __restrict__ pairs_j,
   const int first = row0 >> 1;
   const int span = ((row0 + mics - 1) >> 1) - first + 1;
   float2* work = strips + span * strip;
-  if (b == 0 && blockIdx.z == 0) {
+  if (keys != nullptr && b == 0 && blockIdx.z == 0) {
     for (int i = threadIdx.x; i < 2 * couples; i += blockDim.x)
       keys[(size_t)scene * 2 * couples + i] = 0ull;
     for (int i = threadIdx.x; i < couples; i += blockDim.x)
@@ -1560,6 +1561,40 @@ cudaError_t render_split(const float* base, int scenes, int len,
   return cudaGetLastError();
 }
 
+// GCC pass 2 (`gcc_rows`) over the packed mic rows zm (after pass 1) of
+// `scenes` scenes -> the packed cross rows zc (scenes * couples, n);
+// keys and count are K2's (null for K1).
+cudaError_t gcc_rows_launch(int scenes, int mics, const int* pairs_i,
+                            const int* pairs_j, int num_pairs,
+                            const float* band, float eps, int n1, int n2,
+                            const float2* tw, const float2* zm, float2* zc,
+                            unsigned long long* keys, unsigned int* count,
+                            cudaStream_t s) {
+  using palt::kStrip;
+  const int couples = (num_pairs + 1) / 2;
+  const int strips = (mics + 1) / 2 + 1;  // a scene's widest span + 1
+  const int threads = palt::fft_threads(n2, kStrip);
+  const dim3 grid(n1 / kStrip, scenes,
+                  row_groups(n1 / kStrip * scenes, threads, couples));
+  const int smem =
+      (n2 / 2 + n1 + n2 + strips * kStrip * (n2 + 1)) * (int)sizeof(float2);
+  cudaError_t err;
+  if (n2 <= 256) {
+    err = palt::allow_smem<gcc_rows<256, 2>>();
+    if (err != cudaSuccess) return err;
+    gcc_rows<256, 2><<<grid, threads, smem, s>>>(
+        pairs_i, pairs_j, num_pairs, mics, band, eps, n1, n2, tw, zm, zc,
+        keys, count);
+  } else {
+    err = palt::allow_smem<gcc_rows<1024, 1>>();
+    if (err != cudaSuccess) return err;
+    gcc_rows<1024, 1><<<grid, threads, smem, s>>>(
+        pairs_i, pairs_j, num_pairs, mics, band, eps, n1, n2, tw, zm, zc,
+        keys, count);
+  }
+  return cudaGetLastError();
+}
+
 // The windowed-GCC stage on the split (n1 > 1): the mic rows given by
 // load (rows scene * mics + mic) -> win / stats, through zm (ceil(scenes
 // * mics / 2), n; may be the loader's buffer) and zc (scenes * couples,
@@ -1579,26 +1614,8 @@ cudaError_t gcc_split(Load load, int scenes, int mics, const int* pairs_i,
   cudaError_t err =
       cols_launch(load, (scenes * mics + 1) / 2, n1, n2, tw, zm, s);
   if (err != cudaSuccess) return err;
-  const int strips = (mics + 1) / 2 + 1;  // a scene's widest span + 1
-  const int threads2 = fft_threads(n2, kStrip);
-  const dim3 grid2(n1 / kStrip, scenes,
-                   row_groups(n1 / kStrip * scenes, threads2, couples));
-  const int smem2 =
-      (n2 / 2 + n1 + n2 + strips * kStrip * (n2 + 1)) * (int)sizeof(float2);
-  if (n2 <= 256) {
-    err = palt::allow_smem<gcc_rows<256, 2>>();
-    if (err != cudaSuccess) return err;
-    gcc_rows<256, 2><<<grid2, threads2, smem2, s>>>(
-        pairs_i, pairs_j, num_pairs, mics, band, eps, n1, n2, tw, zm, zc,
-        keys, count);
-  } else {
-    err = palt::allow_smem<gcc_rows<1024, 1>>();
-    if (err != cudaSuccess) return err;
-    gcc_rows<1024, 1><<<grid2, threads2, smem2, s>>>(
-        pairs_i, pairs_j, num_pairs, mics, band, eps, n1, n2, tw, zm, zc,
-        keys, count);
-  }
-  err = cudaGetLastError();
+  err = gcc_rows_launch(scenes, mics, pairs_i, pairs_j, num_pairs, band, eps,
+                        n1, n2, tw, zm, zc, keys, count, s);
   if (err != cudaSuccess) return err;
   err = palt::allow_smem<window_cols>();
   if (err != cudaSuccess) return err;
@@ -1607,6 +1624,265 @@ cudaError_t gcc_split(Load load, int scenes, int mics, const int* pairs_i,
       zc, num_pairs, couples, n1, n2, wq * 128, tw, win, stats, part, keys,
       count);
   return cudaGetLastError();
+}
+
+// ---- K1 and K9: whole correlations on the split and in one block --------
+//
+// K1 (all pairs of every scene; replaces `bfly_gcc_all_pairs`,
+// ops/pallas_fft.py:922 of the TPU package) and K9 (row pairs of two
+// natural-order spectra; replaces `bfly_whitened_corr`, :707) write the
+// whole circular correlation, two pairs a packed Hermitian row.  The TPU
+// kernels kept a row's butterfly planes in VMEM; a 65,536-point row (512
+// KB) does not fit a block's 227 KB, so where `cuda_fft.gcc_schedule` /
+// `corr_schedule` say so they run K4b's four-step split:
+//
+// K1:  K4a's pass 1 over the mic rows; `gcc_rows` (K2's, without the
+//      statistics' keys); `corr_cols`.
+// K9:  `corr_rows`, which gathers each strip's bins of the two spectra
+//      (bin q <= n/2 of a and b; the mirror comes from the Hermitian
+//      pair), whitens, runs the inverse row DFTs and the conjugate
+//      twiddle; `corr_cols`.
+//
+// `corr_cols` is pass 1 mirrored: the inverse column DFTs, times 1/n,
+// written in natural order, the real part to pair 2c and the imaginary
+// part to pair 2c + 1.  Up to 4,096 points one block holds the whole row
+// (`gcc_block`: a scene's packed mic rows and a spare row; `corr_block`:
+// one packed row), one launch.  Bound: device memory (the rows' read and
+// the correlations' write, plus on the split one write and one read of
+// each packed buffer a pass) and, in the row passes, their instructions,
+// as K2's; a single scene's or pair's call by its launches' latency.
+
+// K1 / K9 pass 3.  Grid (n2 / kStrip column strips, scenes * couples):
+// the inverse column DFTs of packed cross row rc = scene * couples + c,
+// times 1/n, into rows 2c (real part) and 2c + 1 (imaginary part, unless
+// num_pairs is odd and c the last couple) of out (scenes, num_pairs, n).
+__global__ void __launch_bounds__(1024)
+corr_cols(const float2* __restrict__ zc, int num_pairs, int couples, int n1,
+          int n2, const float2* __restrict__ tw, float* __restrict__ out) {
+  using palt::kStrip;
+  float2* stw = palt::fft_shared();
+  float2* buf = stw + (n1 >> 1);
+  const int n = n1 * n2;
+  const int rc = blockIdx.y;
+  const int scene = rc / couples;
+  const int p0 = 2 * (rc - scene * couples);
+  const bool two = p0 + 1 < num_pairs;
+  const int c0 = blockIdx.x * kStrip;
+  palt::stage_twiddles(stw, tw, n1, n2);
+  cols_inverse(zc + (size_t)rc * n, buf, stw, n1, n2, c0);
+  const float scale = 1.0f / (float)n;
+  float* o0 = out + ((size_t)scene * num_pairs + p0) * (size_t)n;
+  for (int idx = threadIdx.x; idx < n1 * kStrip; idx += blockDim.x) {
+    const size_t j = (size_t)(idx / kStrip) * n2 + c0 + idx % kStrip;
+    const float2 v = buf[idx];
+    o0[j] = v.x * scale;
+    if (two) o0[n + j] = v.y * scale;
+  }
+}
+
+cudaError_t corr_cols_launch(const float2* zc, int scenes, int num_pairs,
+                             int n1, int n2, const float2* tw, float* out,
+                             cudaStream_t s) {
+  using palt::kStrip;
+  const int couples = (num_pairs + 1) / 2;
+  const cudaError_t err = palt::allow_smem<corr_cols>();
+  if (err != cudaSuccess) return err;
+  corr_cols<<<dim3(n2 / kStrip, scenes * couples),
+              palt::fft_threads(n1, kStrip),
+              (n1 / 2 + n1 * kStrip) * (int)sizeof(float2), s>>>(
+      zc, num_pairs, couples, n1, n2, tw, out);
+  return cudaGetLastError();
+}
+
+// K9 pass 2.  Grid (n1 / S, packed rows): block (b, c) forms rows
+// pair_row(b, r) of packed cross row c, whiten(a * conj(b)) * band of rows
+// 2c and 2c + 1, from bins q <= n/2 of the natural-order spectra (one
+// task a mirror pair, `pair_task`, so that reads run over consecutive
+// bins), then the inverse row DFTs and the conjugate twiddle into zc.
+template <int kMaxThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
+corr_rows(const float2* __restrict__ a, const float2* __restrict__ b,
+          int rows, const float* __restrict__ band, float eps, int n1,
+          int n2, const float2* __restrict__ tw, float2* __restrict__ zc) {
+  float2* stw = palt::fft_shared();
+  float2* lo = stw + (n2 >> 1);
+  float2* hi = lo + n1;
+  float2* work = hi + n2;
+  const int ld = n2 + 1;
+  const int n = n1 * n2;
+  const int c = blockIdx.y;
+  const int blk = blockIdx.x;
+  const bool two = 2 * c + 1 < rows;
+  const size_t bins = (size_t)(n >> 1) + 1;
+  const float2* a0 = a + (size_t)(2 * c) * bins;
+  const float2* b0 = b + (size_t)(2 * c) * bins;
+  palt::stage_twiddles(stw, tw, n2, n1);
+  stage_split_tables(lo, hi, tw, n1, n2);
+  const int tasks = pair_tasks(blk, n2);
+  for (int t = threadIdx.x; t < tasks; t += blockDim.x) {
+    const PairTask p = pair_task(t, blk, n1, n2, ld);
+    const float bq = band[p.q];
+    float2 r0 = whiten(a0[p.q], b0[p.q], eps);
+    r0 = make_float2(r0.x * bq, r0.y * bq);
+    float2 r1 = make_float2(0.0f, 0.0f);
+    if (two) {
+      r1 = whiten(a0[bins + p.q], b0[bins + p.q], eps);
+      r1 = make_float2(r1.x * bq, r1.y * bq);
+    }
+    store_pair(work, p, n, r0, r1);
+  }
+  palt::block_fft<palt::kStrip>(work, 1, ld, n2, stw, -1.0f);
+  store_rows(work, zc + (size_t)c * n, lo, hi, blk, n1, n2);
+}
+
+// K1 in one block (n <= 4096).  Grid (scenes, groups): block (scene, g)
+// loads the packed mic rows that hold the scene's mics (rows packed
+// across scenes, as on the split) and transforms them in shared memory;
+// then for every gridDim.y-th couple c from the g-th it forms the
+// whitened, band-masked cross-spectra of pairs 2c and 2c + 1 (`gcc_cross`'s
+// arithmetic) as one packed Hermitian row in the spare row, runs its
+// inverse and writes both correlations times 1/n.
+__global__ void __launch_bounds__(256)
+gcc_block(RowLoad load, int mics, const int* __restrict__ pairs_i,
+          const int* __restrict__ pairs_j, int num_pairs,
+          const float* __restrict__ band, float eps, int n,
+          const float2* __restrict__ tw, float* __restrict__ out) {
+  float2* stw = palt::fft_shared();
+  float2* spec = stw + (n >> 1);
+  const int scene = blockIdx.x;
+  const int couples = (num_pairs + 1) / 2;
+  const int row0 = scene * mics;
+  const int first = row0 >> 1;
+  const int span = ((row0 + mics - 1) >> 1) - first + 1;
+  const int shift = __ffs(n) - 1;
+  float2* work = spec + (size_t)span * n;
+  palt::stage_twiddles(stw, tw, n, 1);
+  for (int idx = threadIdx.x; idx < span * n; idx += blockDim.x)
+    spec[idx] = load.row(first + (idx >> shift))(idx & (n - 1));
+  for (int k = 0; k < span; ++k)
+    palt::block_fft<1>(spec + (size_t)k * n, 1, 0, n, stw, 1.0f);
+  const float scale = 1.0f / (float)n;
+  for (int c = blockIdx.y; c < couples; c += gridDim.y) {
+    const int p0 = 2 * c;
+    const bool two = p0 + 1 < num_pairs;
+    const int p1 = two ? p0 + 1 : p0;
+    const int i0 = row0 + pairs_i[p0];
+    const int j0 = row0 + pairs_j[p0];
+    const int i1 = row0 + pairs_i[p1];
+    const int j1 = row0 + pairs_j[p1];
+    const float2* si0 = spec + (size_t)((i0 >> 1) - first) * n;
+    const float2* sj0 = spec + (size_t)((j0 >> 1) - first) * n;
+    const float2* si1 = spec + (size_t)((i1 >> 1) - first) * n;
+    const float2* sj1 = spec + (size_t)((j1 >> 1) - first) * n;
+    for (int q = threadIdx.x; q <= (n >> 1); q += blockDim.x) {
+      const int m = (n - q) & (n - 1);
+      const float bq = band[q];
+      float2 r0 = whiten(split_bin(si0[q], si0[m], i0 & 1),
+                         split_bin(sj0[q], sj0[m], j0 & 1), eps);
+      r0 = make_float2(r0.x * bq, r0.y * bq);
+      float2 r1 = make_float2(0.0f, 0.0f);
+      if (two) {
+        r1 = whiten(split_bin(si1[q], si1[m], i1 & 1),
+                    split_bin(sj1[q], sj1[m], j1 & 1), eps);
+        r1 = make_float2(r1.x * bq, r1.y * bq);
+      }
+      store_packed(work, q, n, r0, r1);
+    }
+    palt::block_fft<1>(work, 1, 0, n, stw, -1.0f);
+    float* o0 = out + ((size_t)scene * num_pairs + p0) * (size_t)n;
+    for (int t = threadIdx.x; t < n; t += blockDim.x) {
+      const float2 v = work[t];
+      o0[t] = v.x * scale;
+      if (two) o0[n + t] = v.y * scale;
+    }
+    __syncthreads();  // the next couple rewrites work
+  }
+}
+
+// K9 in one block (n <= 4096).  Block c: whiten(a * conj(b)) * band of
+// rows 2c and 2c + 1 over bins 0..n/2 as one packed Hermitian row in
+// shared memory, its inverse, both rows times 1/n.
+__global__ void __launch_bounds__(256)
+corr_block(const float2* __restrict__ a, const float2* __restrict__ b,
+           int rows, const float* __restrict__ band, float eps, int n,
+           const float2* __restrict__ tw, float* __restrict__ out) {
+  float2* stw = palt::fft_shared();
+  float2* buf = stw + (n >> 1);
+  const int c = blockIdx.x;
+  const bool two = 2 * c + 1 < rows;
+  const size_t bins = (size_t)(n >> 1) + 1;
+  const float2* a0 = a + (size_t)(2 * c) * bins;
+  const float2* b0 = b + (size_t)(2 * c) * bins;
+  palt::stage_twiddles(stw, tw, n, 1);
+  for (int q = threadIdx.x; q <= (n >> 1); q += blockDim.x) {
+    const float bq = band[q];
+    float2 r0 = whiten(a0[q], b0[q], eps);
+    r0 = make_float2(r0.x * bq, r0.y * bq);
+    float2 r1 = make_float2(0.0f, 0.0f);
+    if (two) {
+      r1 = whiten(a0[bins + q], b0[bins + q], eps);
+      r1 = make_float2(r1.x * bq, r1.y * bq);
+    }
+    store_packed(buf, q, n, r0, r1);
+  }
+  palt::block_fft<1>(buf, 1, 0, n, stw, -1.0f);
+  const float scale = 1.0f / (float)n;
+  float* o0 = out + (size_t)(2 * c) * n;
+  for (int t = threadIdx.x; t < n; t += blockDim.x) {
+    const float2 v = buf[t];
+    o0[t] = v.x * scale;
+    if (two) o0[n + t] = v.y * scale;
+  }
+}
+
+// Threads of K1's and K9's one-block kernels (every n <= 4096 needs at
+// most 256 for block_fft; the rest take part in the loads and stores).
+constexpr int kBlockThreads = 256;
+
+// K1 on the split (n1 > 1), through zm (ceil(scenes * mics / 2), n) and zc
+// (scenes * couples, n).
+cudaError_t gcc_all_split(const float* x, int scenes, int mics, int len,
+                          const int* pairs_i, const int* pairs_j,
+                          int num_pairs, const float* band, float eps, int n,
+                          int n1, const float2* tw, float2* zm, float2* zc,
+                          float* out, cudaStream_t s) {
+  const int n2 = n / n1;
+  const int rows = scenes * mics;
+  cudaError_t err =
+      cols_launch(RowLoad{x, rows, len}, (rows + 1) / 2, n1, n2, tw, zm, s);
+  if (err != cudaSuccess) return err;
+  err = gcc_rows_launch(scenes, mics, pairs_i, pairs_j, num_pairs, band, eps,
+                        n1, n2, tw, zm, zc, nullptr, nullptr, s);
+  if (err != cudaSuccess) return err;
+  return corr_cols_launch(zc, scenes, num_pairs, n1, n2, tw, out, s);
+}
+
+// K9 on the split (n1 > 1), through zc (ceil(rows / 2), n).
+cudaError_t corr_split(const float2* a, const float2* b, int rows,
+                       const float* band, float eps, int n, int n1,
+                       const float2* tw, float2* zc, float* out,
+                       cudaStream_t s) {
+  using palt::kStrip;
+  const int n2 = n / n1;
+  const dim3 grid(n1 / kStrip, (rows + 1) / 2);
+  const int threads = palt::fft_threads(n2, kStrip);
+  const int smem =
+      (n2 / 2 + n1 + n2 + kStrip * (n2 + 1)) * (int)sizeof(float2);
+  cudaError_t err;
+  if (n2 <= 256) {
+    err = palt::allow_smem<corr_rows<256, 2>>();
+    if (err != cudaSuccess) return err;
+    corr_rows<256, 2><<<grid, threads, smem, s>>>(a, b, rows, band, eps, n1,
+                                                  n2, tw, zc);
+  } else {
+    err = palt::allow_smem<corr_rows<1024, 1>>();
+    if (err != cudaSuccess) return err;
+    corr_rows<1024, 1><<<grid, threads, smem, s>>>(a, b, rows, band, eps, n1,
+                                                   n2, tw, zc);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return corr_cols_launch(zc, 1, rows, n1, n2, tw, out, s);
 }
 
 // ---- stages shared by the entry points -----------------------------------
@@ -1703,16 +1979,34 @@ int palt_fft_real(const float* x, int rows, int len, int n, int n1, int s2,
 // K1: x (scenes, mics, len) -> out (scenes, num_pairs, n) PHAT
 // correlations, circular.  Rows scene * mics + mic are packed two to a
 // transform across scenes (an odd mic count still packs), as in K2.
+// n1 = 1: one block a scene (`gcc_block`), no buffer; n1 > 1: the three
+// launches of the split n = n1 * n2 through spec0 and z0; n1 = 0: the
+// radix-2 passes through spec0 / spec1 and z0 / z1.
 int palt_gcc_all_pairs(const float* x, int scenes, int mics, int len, int n,
-                       const int* pairs_i, const int* pairs_j, int num_pairs,
-                       const float* band, float eps, const float2* tw,
-                       float2* spec0, float2* spec1, float2* z0, float2* z1,
-                       float* out, void* stream) {
+                       int n1, const int* pairs_i, const int* pairs_j,
+                       int num_pairs, const float* band, float eps,
+                       const float2* tw, float2* spec0, float2* spec1,
+                       float2* z0, float2* z1, float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int rows = scenes * mics;
   const int packed = (rows + 1) / 2;
   const int couples = (num_pairs + 1) / 2;
   const int cross = scenes * couples;
+  if (n1 == 1) {
+    const int smem = (n / 2 + ((mics + 1) / 2 + 1) * n) * (int)sizeof(float2);
+    const cudaError_t err = palt::allow_smem<gcc_block>();
+    if (err != cudaSuccess) return (int)err;
+    gcc_block<<<dim3(scenes, row_groups(scenes, kBlockThreads, couples)),
+                kBlockThreads, smem, s>>>(RowLoad{x, rows, len}, mics,
+                                          pairs_i, pairs_j, num_pairs, band,
+                                          eps, n, tw, out);
+    PALT_CHECK();
+    return 0;
+  }
+  if (n1 > 1)
+    return (int)gcc_all_split(x, scenes, mics, len, pairs_i, pairs_j,
+                              num_pairs, band, eps, n, n1, tw, spec0, z0, out,
+                              s);
   pack_rows<<<dim3(palt::pass_blocks(n), packed), kThreads, 0, s>>>(
       x, rows, len, len, n, spec0);
   PALT_CHECK();
@@ -1825,12 +2119,26 @@ int palt_whiten(const float2* z, long long count, float eps, float2* out,
 
 // K9: a, b (rows, n/2+1) complex natural-order spectra, band (n/2+1) ->
 // out (rows, n) circular correlations of whiten(a * conj(b)) * band,
-// scaled by 1/n (K1's back half with arbitrary row pairs).
+// scaled by 1/n (K1's back half with arbitrary row pairs).  n1 = 1: one
+// block a packed row (`corr_block`), no buffer; n1 > 1: the two launches of
+// the split n = n1 * n2 through z0; n1 = 0: the radix-2 passes through z0
+// / z1.
 int palt_whitened_corr(const float2* a, const float2* b, int rows, int n,
-                       const float* band, float eps, const float2* tw,
-                       float2* z0, float2* z1, float* out, void* stream) {
+                       int n1, const float* band, float eps,
+                       const float2* tw, float2* z0, float2* z1, float* out,
+                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int couples = (rows + 1) / 2;
+  if (n1 == 1) {
+    const cudaError_t err = palt::allow_smem<corr_block>();
+    if (err != cudaSuccess) return (int)err;
+    corr_block<<<couples, kBlockThreads, (n / 2 + n) * (int)sizeof(float2),
+                 s>>>(a, b, rows, band, eps, n, tw, out);
+    PALT_CHECK();
+    return 0;
+  }
+  if (n1 > 1)
+    return (int)corr_split(a, b, rows, band, eps, n, n1, tw, z0, out, s);
   corr_cross<<<dim3(bin_blocks(n), couples), kThreads, 0, s>>>(
       a, b, rows, band, eps, n, z0);
   PALT_CHECK();

@@ -8,8 +8,8 @@ for K7):
 wrapper               replaces                               bound on an H100
 ===================== ====================================== ==================
 fft_real              bfly_fft_real (:685)                   memory: 2 launches
-whitened_corr         bfly_whitened_corr (:707)              memory: FFT passes
-gcc_all_pairs         bfly_gcc_all_pairs (:922)              memory: FFT passes
+whitened_corr         bfly_whitened_corr (:707)              memory: 2 launches
+gcc_all_pairs         bfly_gcc_all_pairs (:922)              memory: 3 launches
 gcc_windowed          bfly_gcc_windowed (:1095)              memory: 3 launches
 bootstrap_peaks       bfly_bootstrap_peaks (:1227)           memory: 3 launches
 noise_bootstrap_peaks bfly_noise_bootstrap_peaks (:1326)     memory: 3 launches
@@ -24,20 +24,23 @@ The three kernels of K10, the TPU package's A/B tool of FFT schedules
 library from ``csrc/rowdft.cu``; their launches count here too.
 
 All but ``whiten`` are built on one FFT (``csrc/fft.cuh``) in two
-schedules.  ``fft_real``, ``bootstrap_peaks``, ``noise_bootstrap_peaks``
-(and K10's ``row_stages``) and, where ``scene_stages`` gives the split,
-``delay_sum``, ``gcc_windowed`` and ``scene_windowed`` run on-chip
-sub-transforms: a block holds a strip of sequences in shared memory for
-all of its radix-16 stages, and a long row is a four-step split of two
-such launches (``fft_real_split``; the bootstrap, the render and the
-windowed GCC run it forward and back in three, the middle launch holding
-rows for both directions), so a transform reads and writes each point
-once per launch (16 bytes a complex point) and is bound by device memory
-at that.  The others run radix-2 Stockham passes over rows in device
-memory, one launch and 16 bytes a point per pass, about 16·log2(nfft)
-bytes per point and transform, and fuse their first or last pass into a
-prologue or epilogue; so do the render, windowed-GCC and scene kernels up
-to 4096 points and where their strips do not fit, and the bootstraps
+schedules.  ``fft_real``, ``bootstrap_peaks``, ``noise_bootstrap_peaks``,
+``gcc_all_pairs`` and ``whitened_corr`` (and K10's ``row_stages``) and,
+where ``scene_stages`` gives the split, ``delay_sum``, ``gcc_windowed``
+and ``scene_windowed`` run on-chip sub-transforms: a block holds a strip
+of sequences in shared memory for all of its radix-16 stages, and a long
+row is a four-step split of two such launches (``fft_real_split``; the
+bootstrap, the render and the GCCs run it forward and back in three, the
+middle launch holding rows for both directions; K9, whose input is
+spectra, in two), so a transform reads and writes each point once per
+launch (16 bytes a complex point) and is bound by device memory at
+that.  Up to 4,096 points the bootstraps, K9 and the all-pairs GCC (up to
+10 mics) hold a whole row in one block.  The others run radix-2 Stockham
+passes over rows in device memory, one launch and 16 bytes a point per
+pass, about 16·log2(nfft) bytes per point and transform, and fuse their
+first or last pass into a prologue or epilogue: the render,
+windowed-GCC and scene kernels up to 4096 points, every stage where its
+strips do not fit (``scene_stages``, ``gcc_schedule``), and every kernel
 above 2^20.  The design keeps the rest of the work out of device memory where
 the TPU kernels did: real rows are packed two to a complex transform, the
 whitening / ramp synthesis runs in one pass over the spectra, two real
@@ -164,9 +167,9 @@ def _library() -> ctypes.CDLL:
             "palt_fft_real": [p, i, i, i, i, i, p, p, p, p],
             "palt_noise_bootstrap_peaks": [p, p, i, i, i, i, f, p, p, p, p],
             "palt_whiten": [p, ctypes.c_longlong, f, p, p],
-            "palt_whitened_corr": [p, p, i, i, p, f, p, p, p, p, p],
-            "palt_gcc_all_pairs": [p, i, i, i, i, p, p, i, p, f, p, p, p, p,
-                                   p, p, p],
+            "palt_whitened_corr": [p, p, i, i, i, p, f, p, p, p, p, p],
+            "palt_gcc_all_pairs": [p, i, i, i, i, i, p, p, i, p, f, p, p, p,
+                                   p, p, p, p],
             "palt_bootstrap_peaks": [p, p, i, i, i, i, f, p, p, p, p],
             "palt_gcc_windowed": [p, i, i, i, i, i, p, p, i, p, f, i, p, p,
                                   p, p, p, p, p, p, p, p, p],
@@ -338,6 +341,35 @@ def scene_stages(nfft: int, mics: int):
     return render, gcc
 
 
+def gcc_schedule(nfft: int, mics: int) -> int:
+    """n1 of K1's schedule for ``mics`` mics a scene at nfft: 1, one block
+    a scene (``gcc_block``), where nfft <= ``FFT_REAL_ONE_BLOCK`` and the
+    block's shared memory holds the n/2 twiddles, the (mics + 1) // 2
+    packed mic rows a scene's mics can span and one spare row (at 4,096
+    points up to 10 mics); above 4,096 the n1 of K2's GCC stage
+    (``scene_stages``), so K1 and K2 take one schedule a shape: the
+    four-step split where its row pass's strips fit.  Else 0, the radix-2
+    passes."""
+    if nfft <= FFT_REAL_ONE_BLOCK:
+        smem = 8 * (nfft // 2 + ((mics + 1) // 2 + 1) * nfft)
+        return 1 if smem <= SMEM_OPTIN else 0
+    return scene_stages(nfft, mics)[1]
+
+
+def corr_schedule(nfft: int) -> int:
+    """n1 of K9's schedule at nfft: 1, one block a packed row
+    (``corr_block``), up to ``FFT_REAL_ONE_BLOCK``; the four-step split of
+    ``fft_real_split`` up to ``FFT_REAL_MAX`` (its row pass holds one strip,
+    which fits at every split); 0, the radix-2 passes, above."""
+    return fft_real_split(nfft)[0] if nfft <= FFT_REAL_MAX else 0
+
+
+def _copies(n1: int) -> int:
+    """Copies of a scratch buffer that K1's and K9's schedule n1 uses: none
+    in one block, one on the split, two (ping-pong) on the passes."""
+    return 0 if n1 == 1 else (1 if n1 else 2)
+
+
 def _window_scratch(rows: int, nfft: int, n1: int, device):
     """``window_cols``' partials for ``rows`` packed cross rows on the
     split (n1 > 1): the (max, index) keys (rows * 2, int64), the block
@@ -428,11 +460,19 @@ def whitened_corr(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
     r / (|r| + eps).
 
     Replaces ``bfly_whitened_corr`` (pyaudiolocalization_tpu/ops/
-    pallas_fft.py:707): K1's back half with arbitrary row pairs — one pass
-    forming the whitened, band-masked cross-spectra of two rows per packed
-    Hermitian row (bins 0..n/2, mirrored, real DC and Nyquist), the packed
-    inverse, and a scale-and-split epilogue.  Bound by the FFT passes'
-    device-memory traffic."""
+    pallas_fft.py:707): K1's back half with arbitrary row pairs — the
+    whitened, band-masked cross-spectra of two rows per packed Hermitian
+    row (bins 0..n/2, mirrored, real DC and Nyquist), the packed inverse,
+    1/n and the split into the two rows.  By length (``corr_schedule``):
+    up to ``FFT_REAL_ONE_BLOCK`` (4,096) one launch, a block per packed row
+    holding it in shared memory, no scratch; up to ``FFT_REAL_MAX`` (2^20)
+    two launches over one scratch buffer on K4b's four-step split — a row
+    pass that gathers each strip's bins of ``a`` and ``b``, whitens and
+    runs the inverse row DFTs, and K1's column pass, whose inverse column
+    DFTs write the rows in natural order; above, the radix-2 passes.
+    Bound by device memory (the spectra's read, the rows' write, one
+    write and one read of the packed buffer on the split); a single pair's
+    call by its launches' latency."""
     if _use_plain(a, b, mask):
         return whitened_corr_plain(a, b, mask, nfft, eps)
     _check_contiguous("whitened_corr", a, b, mask)
@@ -448,11 +488,12 @@ def whitened_corr(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
     dev = a.device
     rows = a.shape[0]
     out = torch.empty((rows, nfft), dtype=torch.float32, device=dev)
-    z = [_scratch((rows + 1) // 2, nfft, dev) for _ in range(2)]
+    n1 = corr_schedule(nfft)
+    z0, z1, _z = _buffers(_copies(n1), (rows + 1) // 2, nfft, dev)
     tw = _twiddles(nfft, str(dev))
     _launch("whitened_corr", dev, lib.palt_whitened_corr, a.data_ptr(),
-            b.data_ptr(), rows, nfft, mask.data_ptr(), eps, tw.data_ptr(),
-            z[0].data_ptr(), z[1].data_ptr(), out.data_ptr())
+            b.data_ptr(), rows, nfft, n1, mask.data_ptr(), eps,
+            tw.data_ptr(), z0, z1, out.data_ptr())
     return out
 
 
@@ -491,11 +532,27 @@ def gcc_all_pairs(signals: torch.Tensor, pairs_i: Sequence[int],
     Replaces ``bfly_gcc_all_pairs`` (pyaudiolocalization_tpu/ops/
     pallas_fft.py:922): the forward transforms of every mic row of every
     scene (rows scene * M + mic, two per complex FFT, so an odd M packs
-    across scenes), one fused cross-spectrum / whitening / band pass
-    writing two pairs of one scene per packed row, the packed inverse, and
-    a scale-and-split epilogue.  A batch whose grids would exceed 65,535
-    rows launches over scene chunks (``scene_chunk``).  Bound by the FFT
-    passes' device-memory traffic."""
+    across scenes), the whitened, band-masked cross-spectra of two pairs
+    of one scene per packed Hermitian row, the packed inverse, 1/n and the
+    split into the two pairs.  By shape (``gcc_schedule``):
+
+    - nfft <= ``FFT_REAL_ONE_BLOCK`` (4,096) and up to 10 mics: one
+      launch, a block per scene holding the scene's packed mic rows and a
+      spare row in shared memory, no scratch (blocks share a scene's
+      couples where scenes are too few to fill the card);
+    - where K2's GCC stage takes the split (``scene_stages``: up to 2^19
+      at 4 mics, 10 mics at 65,536): three launches on K4b's four-step
+      split over one buffer of packed mic rows and one of packed cross
+      rows — K4a's column pass, K2's row pass (a scene's strips of every
+      packed mic row; per couple the cross-spectra and the inverse row
+      DFTs), and a column pass whose inverse column DFTs write the
+      correlations in natural order;
+    - elsewhere the radix-2 passes through device memory.
+
+    A batch whose grids would exceed 65,535 rows launches over scene
+    chunks (``scene_chunk``; one block a scene has no such limit).  Bound
+    by device memory: the signals' read, the correlations' write and, on
+    the split, one write and one read of each packed buffer a pass."""
     if _use_plain(signals, mask):
         return gcc_all_pairs_plain(signals, pairs_i, pairs_j, nfft, mask, eps)
     _check_contiguous("gcc_all_pairs", signals, mask)
@@ -509,7 +566,8 @@ def gcc_all_pairs(signals: torch.Tensor, pairs_i: Sequence[int],
     scenes = int(np.prod(lead)) if lead else 1
     num_pairs = int(pi.shape[0])
     couples = (num_pairs + 1) // 2
-    chunk = scene_chunk(scenes, mics, couples)
+    n1 = gcc_schedule(nfft, mics)
+    chunk = scenes if n1 == 1 else scene_chunk(scenes, mics, couples)
     if length > nfft or mask.shape != (nfft // 2 + 1,):
         raise ValueError("gcc_all_pairs: unsupported shapes")
     dev = signals.device
@@ -525,16 +583,16 @@ def gcc_all_pairs(signals: torch.Tensor, pairs_i: Sequence[int],
     pj_t = torch.as_tensor(pj, dtype=torch.int32, device=dev)
     x = signals.view(scenes, mics, length)
     o = out.view(scenes, num_pairs, nfft)
-    spec = [_scratch((chunk * mics + 1) // 2, nfft, dev) for _ in range(2)]
-    cpl = [_scratch(chunk * couples, nfft, dev) for _ in range(2)]
+    spec0, spec1, _spec = _buffers(_copies(n1), (chunk * mics + 1) // 2,
+                                   nfft, dev)
+    cpl0, cpl1, _cpl = _buffers(_copies(n1), chunk * couples, nfft, dev)
     tw = _twiddles(nfft, str(dev))
     for s0 in range(0, scenes, chunk):
         _launch("gcc_all_pairs", dev, lib.palt_gcc_all_pairs,
                 x[s0].data_ptr(), min(chunk, scenes - s0), mics, length,
-                nfft, pi_t.data_ptr(), pj_t.data_ptr(), num_pairs,
-                mask.data_ptr(), eps, tw.data_ptr(), spec[0].data_ptr(),
-                spec[1].data_ptr(), cpl[0].data_ptr(), cpl[1].data_ptr(),
-                o[s0].data_ptr())
+                nfft, n1, pi_t.data_ptr(), pj_t.data_ptr(), num_pairs,
+                mask.data_ptr(), eps, tw.data_ptr(), spec0, spec1, cpl0,
+                cpl1, o[s0].data_ptr())
     return out
 
 

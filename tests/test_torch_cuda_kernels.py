@@ -92,19 +92,28 @@ def test_fft_real_raises_above_its_largest_length(cuda):
         cf.fft_real(x, 2 * cf.FFT_REAL_MAX)
 
 
-def _device_kernels(fn, path):
+def _device_kernels(fn, path, cycles=6):
     """Names of the device kernels that one warm call of ``fn`` runs, from
-    a ``torch.profiler`` trace of CUDA activity."""
+    a ``torch.profiler`` trace of CUDA activity: the first trace from the
+    third on that records any kernel (a process's first traces may miss
+    kernels, and now and then a later trace records none at all; every
+    call checked here launches at least one)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a process's first traces may miss kernels
+    names = []
+    for cycle in range(cycles):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-    prof.export_chrome_trace(str(path))
-    events = json.loads(path.read_text())["traceEvents"]
-    return [e["name"] for e in events if e.get("cat") == "kernel"]
+        if cycle < 2:
+            continue
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        names = [e["name"] for e in events if e.get("cat") == "kernel"]
+        if names:
+            break
+    return names
 
 
 @pytest.mark.cuda
@@ -298,13 +307,20 @@ def test_whiten_kernel_takes_misaligned_views(cuda, bins):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,length,nfft", [(1, 44100, 65536),
-                                              (3, 3000, 4096),
-                                              (5, 100, 128)])
-def test_whitened_corr_kernel_matches_plain(cuda, rows, length, nfft):
+@pytest.mark.parametrize("rows,length,nfft,schedule", [
+    (1, 44100, 65536, 256), (3, 3000, 4096, 1), (5, 100, 128, 1),
+    (2, 44100, 131072, 512), (3, 6000, 8192, 128), (4, 100, 128, 1),
+    (1, 600000, 1 << 20, 1024), (1, 600000, 1 << 21, 0)])
+def test_whitened_corr_kernel_matches_plain(cuda, rows, length, nfft,
+                                            schedule):
+    """K9 on each of its schedules (``corr_schedule``): one block a packed
+    row, the two launches of the split (up to 1024 x 1024) and the passes
+    above 2^20; odd and even row counts."""
+    assert cf.corr_schedule(nfft) == schedule
     g = _gen(cuda)
     x = torch.randn((2 * rows, length), generator=g, device=cuda)
-    spec = cf.fft_real(x, nfft)
+    spec = cf.fft_real(x, nfft) if nfft <= cf.FFT_REAL_MAX else \
+        cf.fft_real_plain(x, nfft)
     a, b = spec[:rows].contiguous(), spec[rows:].contiguous()
     for band in ((300.0, 3400.0), None):
         mask = cf.band_mask(nfft, band, 8000.0, device=cuda)
@@ -444,17 +460,93 @@ def test_gcc_all_pairs_scene_axis_matches_plain(cuda, b, m, length, nfft):
 @pytest.mark.cuda
 def test_gcc_all_pairs_launches_over_scene_chunks(cuda, monkeypatch):
     """A batch beyond the grid limit is launched in scene chunks (the
-    limit lowered here so a small batch crosses it)."""
+    limit lowered here so a small batch crosses it) on the split and the
+    passes, whose grids count packed rows along y; one block a scene
+    (nfft <= 4,096) has no such limit and launches once."""
     monkeypatch.setattr(cf, "_MAX_GRID_Y", 7)
     sig = torch.randn((5, 3, 200), generator=_gen(cuda), device=cuda)
     pi, pj = _pairs(3)
-    mask = cf.band_mask(256, None, None, device=cuda)
-    before = cf.LAUNCHES["gcc_all_pairs"]
-    got = cf.gcc_all_pairs(sig, pi, pj, 256, mask)
-    torch.cuda.synchronize()
-    assert cf.LAUNCHES["gcc_all_pairs"] - before == 2   # 3 + 2 scenes
-    want = cf.gcc_all_pairs_plain(sig, pi, pj, 256, mask)
-    assert float((got - want).abs().max()) < 1e-6
+    for nfft, launches in ((8192, 2), (256, 1)):   # 3 + 2 scenes; one
+        mask = cf.band_mask(nfft, None, None, device=cuda)
+        before = cf.LAUNCHES["gcc_all_pairs"]
+        got = cf.gcc_all_pairs(sig, pi, pj, nfft, mask)
+        torch.cuda.synchronize()
+        assert cf.LAUNCHES["gcc_all_pairs"] - before == launches
+        want = cf.gcc_all_pairs_plain(sig, pi, pj, nfft, mask)
+        assert float((got - want).abs().max()) < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,length,nfft,schedule", [
+    (5, 3, 1500, 2048, 1), (512, 4, 4000, 4096, 1), (1, 8, 4000, 4096, 1),
+    (3, 10, 3000, 4096, 1), (2, 12, 3000, 4096, 0), (None, 4, 44100, 65536,
+                                                      256),
+    (None, 4, 44100, 131072, 512), (3, 3, 6000, 8192, 128),
+    (2, 8, 44100, 65536, 256), (1, 11, 44100, 65536, 0),
+    (1, 3, 600000, 1 << 20, 0)])
+def test_gcc_all_pairs_schedules_match_plain(cuda, b, m, length, nfft,
+                                             schedule):
+    """K1 on each of its schedules (``gcc_schedule``): one block a scene
+    (the reverberant sweep's 512 scenes, one scene of 8 mics whose couples
+    spread over blocks, the odd edge of 5 scenes x 3 mics, 10 mics), the
+    three launches of the split (the api's one scene, whose row pass
+    spreads its couples over ``gridDim.z``, no_gate's 131,072, an odd mic
+    count at 8,192, 8 mics) and the radix-2 passes (12 mics at 4,096, 11
+    at 65,536, 2^20)."""
+    assert cf.gcc_schedule(nfft, m) == schedule
+    g = _gen(cuda, 5)
+    sig = torch.randn((m, length) if b is None else (b, m, length),
+                      generator=g, device=cuda)
+    pi, pj = _pairs(m)
+    for band in ((300.0, 3400.0), None):
+        mask = cf.band_mask(nfft, band, 44100.0, device=cuda)
+        before = cf.LAUNCHES["gcc_all_pairs"]
+        got = cf.gcc_all_pairs(sig, pi, pj, nfft, mask)
+        assert cf.LAUNCHES["gcc_all_pairs"] == before + 1
+        want = cf.gcc_all_pairs_plain(sig, pi, pj, nfft, mask)
+        torch.cuda.synchronize()
+        assert got.shape == sig.shape[:-2] + (len(pi), nfft)
+        assert float((got - want).abs().max()) < 1e-6
+
+
+@pytest.mark.cuda
+def test_gcc_and_corr_device_kernels_per_call(cuda, tmp_path):
+    """K1 runs three device kernels on the split at 65,536 and 131,072 (K4a's
+    column pass, K2's row pass, the column pass that writes the
+    correlations) and one in one block (4,096, up to 8 mics here); K9 two
+    on the split (its row pass and K1's column pass) and one in one
+    block."""
+    g = _gen(cuda, 8)
+    pi, pj = _pairs(4)
+    for shape, nfft in (((4, 44100), 65536), ((4, 44100), 131072),
+                        ((256, 4, 44100), 65536)):
+        sig = torch.randn(shape, generator=g, device=cuda)
+        mask = cf.band_mask(nfft, None, None, device=cuda)
+        names = _device_kernels(
+            lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
+            tmp_path / f"k1_{nfft}.json")
+        assert len(names) == 3, names
+        assert ("fft_real_cols" in names[0] and "gcc_rows" in names[1]
+                and "corr_cols" in names[2]), names
+    for m in (4, 8):
+        sig = torch.randn((128, m, 4000), generator=g, device=cuda)
+        qi, qj = _pairs(m)
+        mask = cf.band_mask(4096, (300.0, 3400.0), 16000.0, device=cuda)
+        names = _device_kernels(
+            lambda: cf.gcc_all_pairs(sig, qi, qj, 4096, mask),
+            tmp_path / f"k1_block_{m}.json")
+        assert len(names) == 1 and "gcc_block" in names[0], names
+    for nfft, want in ((65536, ("corr_rows", "corr_cols")),
+                       (131072, ("corr_rows", "corr_cols")),
+                       (4096, ("corr_block",))):
+        spec = cf.fft_real(torch.randn((2, 4000), generator=g, device=cuda),
+                           nfft)
+        a, b = spec[:1].contiguous(), spec[1:].contiguous()
+        mask = cf.band_mask(nfft, None, None, device=cuda)
+        names = _device_kernels(lambda: cf.whitened_corr(a, b, mask, nfft),
+                                tmp_path / f"k9_{nfft}.json")
+        assert len(names) == len(want), names
+        assert all(w in n for w, n in zip(want, names)), names
 
 
 def test_wrappers_refuse_devices_other_than_cpu_and_cuda():

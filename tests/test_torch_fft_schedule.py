@@ -26,7 +26,15 @@ indices so that a wrong map shows before the card sees it:
   of the blocks' maxima; one block for n <= 4096; against
   irfft(whiten(s1 * conj(rfft(row)))) and ``bootstrap_peaks_plain``;
 - K10b: strips of S lanes, zero_top, the input scale, the
-  conjugate twiddles of the inverse, output modes 0/1/2 and rep chains.
+  conjugate twiddles of the inverse, output modes 0/1/2 and rep chains;
+- K1 and K9 (``palt_gcc_all_pairs``, ``palt_whitened_corr``): K1's split
+  (K2's passes 1 and 2, then ``corr_cols``' inverse column DFTs written
+  to pairs 2c and 2c + 1 in natural order), K9's row pass gathering
+  natural-order bins by the mirror-pair tasks, the one-block versions
+  (``gcc_block`` with a scene's rows packed across scenes and couples
+  shared over groups, ``corr_block``) against ``gcc_all_pairs_plain`` and
+  ``whitened_corr_plain``, and the rules that pick each schedule
+  (``gcc_schedule``, ``corr_schedule``).
 """
 
 import numpy as np
@@ -713,12 +721,13 @@ def window_stats_model(cols, n1, n2, w, order):
     return win, stats
 
 
-def gcc_split_model(sig, pairs_i, pairs_j, n, wq, mask, strip=S, seed=0):
-    """K2's GCC stage on the split: sig (scenes, mics, len) -> (win (scenes,
-    P, 2w), stats (scenes, P, 3)).  ``gcc_rows``: block (b, scene) holds the
-    strips of packed mic rows first .. first + span - 1 (the rows of the
-    scene's mics), and per couple c writes packed cross row scene *
-    couples + c; ``window_cols`` takes its blocks in a shuffled order."""
+def gcc_rows_model(sig, pairs_i, pairs_j, n, mask, strip=S):
+    """K1's and K2's GCC pass 1 and pass 2 on the split: sig (scenes, mics,
+    len) -> every (scene, couple c, packed cross row (n1, n2)), with the
+    inverse row DFTs and the conjugate twiddle applied.  ``gcc_rows``:
+    block (b, scene) holds the strips of packed mic rows first .. first +
+    span - 1 (the rows of the scene's mics), and per couple c writes
+    packed cross row scene * couples + c."""
     scenes, mics, length = sig.shape
     n1, n2 = cf.fft_real_split(n)
     rows = scenes * mics
@@ -730,10 +739,6 @@ def gcc_split_model(sig, pairs_i, pairs_j, n, wq, mask, strip=S, seed=0):
     q = tasks[5]
     pairs = len(pairs_i)
     couples = (pairs + 1) // 2
-    w = wq * 128
-    rng = np.random.default_rng(seed)
-    win = np.zeros((scenes, 2 * couples, 2 * w))
-    stats = np.zeros((scenes, 2 * couples, 3))
     for s in range(scenes):
         row0 = s * mics
         first = row0 >> 1
@@ -753,11 +758,26 @@ def gcc_split_model(sig, pairs_i, pairs_j, n, wq, mask, strip=S, seed=0):
                              spectra[pairs_j[2 * c + 1]]) * mask[q]
             work = np.full((nb, n2, strip), np.nan, complex)
             _store_pairs(work, tasks, ya, yb, n)
-            cross = _rows_back(work, slot_rows, n1, n2)
-            cols = _cols_back(cross[None], n1, n2)[0]
-            order = rng.permutation(n2 // S)
-            cw, cs = window_stats_model(cols, n1, n2, w, order)
-            win[s, 2 * c:2 * c + 2], stats[s, 2 * c:2 * c + 2] = cw, cs
+            yield s, c, _rows_back(work, slot_rows, n1, n2)
+
+
+def gcc_split_model(sig, pairs_i, pairs_j, n, wq, mask, strip=S, seed=0):
+    """K2's GCC stage on the split: sig (scenes, mics, len) -> (win (scenes,
+    P, 2w), stats (scenes, P, 3)): ``gcc_rows_model``, then
+    ``window_cols``, which takes its blocks in a shuffled order."""
+    scenes = sig.shape[0]
+    n1, n2 = cf.fft_real_split(n)
+    pairs = len(pairs_i)
+    couples = (pairs + 1) // 2
+    w = wq * 128
+    rng = np.random.default_rng(seed)
+    win = np.zeros((scenes, 2 * couples, 2 * w))
+    stats = np.zeros((scenes, 2 * couples, 3))
+    for s, c, cross in gcc_rows_model(sig, pairs_i, pairs_j, n, mask, strip):
+        cols = _cols_back(cross[None], n1, n2)[0]
+        order = rng.permutation(n2 // S)
+        cw, cs = window_stats_model(cols, n1, n2, w, order)
+        win[s, 2 * c:2 * c + 2], stats[s, 2 * c:2 * c + 2] = cw, cs
     return win[:, :pairs], stats[:, :pairs]
 
 
@@ -827,3 +847,256 @@ def test_scene_stages_rule(n, mics, want):
         if n1:
             assert n1 == cf.fft_real_split(n)[0]
             assert cf._row_pass_smem(n1, n // n1, strips) <= cf.SMEM_OPTIN
+
+
+# ---------------------------------------------------------------------------
+# K1 and K9: whole correlations on the split and in one block
+# ---------------------------------------------------------------------------
+
+def corr_cols_model(cross, n1, n2):
+    """``corr_cols`` on one packed cross row (n1, n2): the inverse column
+    DFTs by strips, times 1/n; slot (j1, s) of strip b goes to sample j =
+    n2*j1 + b*S + s of both rows -> ((2, n) real and imaginary parts, the
+    count of writes to each sample)."""
+    n = n1 * n2
+    cols = _cols_back(cross[None], n1, n2)[0]          # (n2 / S, n1, S)
+    j = (np.arange(n1)[:, None] * n2 + np.arange(n2 // S)[:, None, None] * S
+         + np.arange(S))                                 # (n2 / S, n1, S)
+    out = np.full((2, n), np.nan)
+    out[0, j.ravel()] = cols.real.ravel() / n
+    out[1, j.ravel()] = cols.imag.ravel() / n
+    return out, np.bincount(j.ravel(), minlength=n)
+
+
+def gcc_all_split_model(sig, pairs_i, pairs_j, n, mask, strip=S):
+    """K1 on the split: ``gcc_rows_model``, then ``corr_cols`` writing pair
+    2c from the real part and 2c + 1 from the imaginary part (none for an
+    odd pair count's last couple) -> (scenes, P, n)."""
+    scenes = sig.shape[0]
+    n1, n2 = cf.fft_real_split(n)
+    pairs = len(pairs_i)
+    out = np.full((scenes, pairs, n), np.nan)
+    for s, c, cross in gcc_rows_model(sig, pairs_i, pairs_j, n, mask, strip):
+        rows, writes = corr_cols_model(cross, n1, n2)
+        assert np.array_equal(writes, np.ones(n, int))
+        for h in range(2):
+            if 2 * c + h < pairs:
+                assert np.isnan(out[s, 2 * c + h]).all()
+                out[s, 2 * c + h] = rows[h]
+    assert not np.isnan(out).any()
+    return out
+
+
+@pytest.mark.parametrize("scenes,mics,n,strip", [
+    (3, 3, 8192, 16), (2, 4, 8192, 32), (3, 5, 16384, 64), (2, 2, 8192, 16),
+    (1, 4, 65536, 16), (2, 8, 8192, 64), (1, 3, 1 << 18, 16)])
+def test_gcc_all_split_matches_gcc_all_pairs(scenes, mics, n, strip):
+    """K1's split (K2's passes 1 and 2, then ``corr_cols``): a scene's
+    strips across packed rows, odd mic and pair counts, 8 mics, 65,536
+    and 2^18, against ``gcc_all_pairs_plain`` within 1e-9 of the max."""
+    rng = np.random.default_rng(scenes * 1000 + mics * 10 + strip)
+    sig = rng.standard_normal((scenes, mics, n - n // 3))
+    pi, pj = _pairs(mics)
+    mask = cf.band_mask(n, (300.0, 3400.0), 16000.0,
+                        dtype=torch.float64).numpy()
+    got = gcc_all_split_model(sig, pi, pj, n, mask, strip)
+    want = cf.gcc_all_pairs_plain(torch.from_numpy(sig), pi, pj, n,
+                                  torch.from_numpy(mask)).numpy()
+    assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
+
+
+def corr_split_model(a, b, mask, n, strip=S):
+    """K9 on the split: ``corr_rows`` — block (blk, c) gathers bin q <= n/2
+    of rows 2c and 2c + 1 of the natural-order spectra a and b for each of
+    its mirror-pair tasks, whitens times the band and stores the pair
+    (``store_pair``), then the inverse row DFTs and the conjugate twiddle —
+    and ``corr_cols`` -> (rows, n).  Asserts that each strip reads only
+    bins q <= n/2, each once a row."""
+    rows = a.shape[0]
+    n1, n2 = cf.fft_real_split(n)
+    nb = n1 // strip
+    slot_rows = _slot_rows(n1, strip)
+    tasks = _block_tasks(nb, strip, n1, n2)
+    q = tasks[5]
+    assert q.max() <= n // 2
+    assert np.array_equal(np.bincount(q, minlength=n // 2 + 1),
+                          np.ones(n // 2 + 1, int))
+    out = np.full((rows, n), np.nan)
+    for c in range((rows + 1) // 2):
+        ya = _whiten(a[2 * c, q], b[2 * c, q]) * mask[q]
+        yb = np.zeros_like(ya)
+        if 2 * c + 1 < rows:
+            yb = _whiten(a[2 * c + 1, q], b[2 * c + 1, q]) * mask[q]
+        work = np.full((nb, n2, strip), np.nan, complex)
+        _store_pairs(work, tasks, ya, yb, n)
+        res, writes = corr_cols_model(_rows_back(work, slot_rows, n1, n2),
+                                      n1, n2)
+        assert np.array_equal(writes, np.ones(n, int))
+        out[2 * c:2 * c + 2] = res[:min(2, rows - 2 * c)]
+    return out
+
+
+def _spectra(rng, rows, n):
+    """Random complex (rows, n/2 + 1) spectra, imaginary parts at DC and
+    Nyquist too (the kernels drop them after whitening, as the twin)."""
+    shape = (rows, n // 2 + 1)
+    return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+
+
+@pytest.mark.parametrize("n", [8192, 65536, 131072])
+@pytest.mark.parametrize("rows", [1, 2, 3])
+def test_corr_split_matches_whitened_corr(rows, n):
+    """K9's gather of natural-order bins by the row pass's tasks, its
+    Hermitian packing of two row pairs and ``corr_cols``' write, against
+    ``whitened_corr_plain`` within 1e-9 of the max (a band at 131,072)."""
+    rng = np.random.default_rng(rows * 7 + n)
+    a, b = _spectra(rng, rows, n), _spectra(rng, rows, n)
+    band = (300.0, 3400.0) if n == 131072 else None
+    mask = cf.band_mask(n, band, 16000.0, dtype=torch.float64).numpy()
+    got = corr_split_model(a, b, mask, n)
+    t = torch.from_numpy
+    want = cf.whitened_corr_plain(t(a), t(b), t(mask), n).numpy()
+    assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
+
+
+def _store_packed(ya, yb, n):
+    """``store_packed`` of bins q = 0..n/2 into a fresh row: bin q holds ya
+    + i*yb, bin n - q their conjugates' pair, imaginary parts dropped at DC
+    and Nyquist; asserts that every bin is written once."""
+    q = np.arange(n // 2 + 1)
+    edge = (q == 0) | (q == n // 2)
+    ya, yb = np.where(edge, ya.real, ya), np.where(edge, yb.real, yb)
+    row = np.full(n, np.nan, complex)
+    row[q] = ya + 1j * yb
+    m = n - q[~edge]
+    row[m] = np.conj(ya[~edge]) + 1j * np.conj(yb[~edge])
+    assert np.array_equal(np.bincount(np.concatenate([q, m]), minlength=n),
+                          np.ones(n, int))
+    return row
+
+
+def gcc_block_model(sig, pairs_i, pairs_j, n, mask, groups=1):
+    """``gcc_block``: block (scene, g) transforms the packed rows first ..
+    first + span - 1 (rows packed across scenes), then for couples c = g,
+    g + groups, ... forms the cross-spectra from bins q and (n - q) mod n
+    (``split_bin``), packs them (``store_packed``), inverts and writes
+    pairs 2c and 2c + 1 times 1/n -> (scenes, P, n).  Asserts that every
+    couple is written by one group."""
+    scenes, mics, length = sig.shape
+    z = _pack(sig.reshape(scenes * mics, length), n)
+    pairs = len(pairs_i)
+    couples = (pairs + 1) // 2
+    q = np.arange(n // 2 + 1)
+    m = (n - q) & (n - 1)
+    out = np.full((scenes, pairs, n), np.nan)
+    done = np.zeros((scenes, couples), int)
+    for s in range(scenes):
+        row0 = s * mics
+        first = row0 >> 1
+        span = ((row0 + mics - 1) >> 1) - first + 1
+        assert span <= (mics + 1) // 2
+        spec = block_fft(z[first:first + span, :, None])[..., 0]
+
+        def bins(mic):
+            r = row0 + mic
+            zr = spec[(r >> 1) - first]
+            return _split_bin(zr[q], zr[m], r & 1)
+
+        for g in range(groups):
+            for c in range(g, couples, groups):
+                done[s, c] += 1
+                ya = _whiten(bins(pairs_i[2 * c]), bins(pairs_j[2 * c]))
+                yb = np.zeros_like(ya)
+                if 2 * c + 1 < pairs:
+                    yb = _whiten(bins(pairs_i[2 * c + 1]),
+                                 bins(pairs_j[2 * c + 1]))
+                work = _store_packed(ya * mask, yb * mask, n)
+                inv = block_fft(work[:, None], -1.0)[:, 0] / n
+                out[s, 2 * c] = inv.real
+                if 2 * c + 1 < pairs:
+                    out[s, 2 * c + 1] = inv.imag
+    assert np.array_equal(done, np.ones_like(done))
+    assert not np.isnan(out).any()
+    return out
+
+
+@pytest.mark.parametrize("scenes,mics,n,groups", [
+    (3, 3, 128, 1), (2, 4, 256, 2), (3, 5, 1024, 3), (4, 2, 512, 1),
+    (2, 8, 4096, 2), (3, 7, 2048, 4), (5, 10, 4096, 1)])
+def test_gcc_block_matches_gcc_all_pairs(scenes, mics, n, groups):
+    """K1 in one block: a scene's packed rows (odd mic counts packed
+    across scenes), odd pair counts, couples shared over groups, 8 and 10
+    mics at 4,096, against ``gcc_all_pairs_plain`` within 1e-9 of the
+    max."""
+    rng = np.random.default_rng(scenes * 100 + mics + n)
+    sig = rng.standard_normal((scenes, mics, n - n // 5))
+    pi, pj = _pairs(mics)
+    mask = cf.band_mask(n, (300.0, 3400.0), 16000.0,
+                        dtype=torch.float64).numpy()
+    got = gcc_block_model(sig, pi, pj, n, mask, groups)
+    want = cf.gcc_all_pairs_plain(torch.from_numpy(sig), pi, pj, n,
+                                  torch.from_numpy(mask)).numpy()
+    assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
+
+
+def corr_block_model(a, b, mask, n):
+    """``corr_block``: block c packs whiten(a * conj(b)) * band of rows 2c
+    and 2c + 1 (``store_packed``), inverts and writes both rows times 1/n
+    -> (rows, n)."""
+    rows = a.shape[0]
+    out = np.full((rows, n), np.nan)
+    for c in range((rows + 1) // 2):
+        ya = _whiten(a[2 * c], b[2 * c]) * mask
+        yb = (_whiten(a[2 * c + 1], b[2 * c + 1]) * mask
+              if 2 * c + 1 < rows else np.zeros_like(ya))
+        inv = block_fft(_store_packed(ya, yb, n)[:, None], -1.0)[:, 0] / n
+        out[2 * c] = inv.real
+        if 2 * c + 1 < rows:
+            out[2 * c + 1] = inv.imag
+    return out
+
+
+@pytest.mark.parametrize("n", [128, 256, 512, 1024, 2048, 4096])
+def test_corr_block_matches_whitened_corr(n):
+    """K9 in one block at 1, 2 and 3 rows against ``whitened_corr_plain``
+    within 1e-9 of the max."""
+    rng = np.random.default_rng(n)
+    mask = cf.band_mask(n, (300.0, 3400.0), 16000.0,
+                        dtype=torch.float64).numpy()
+    for rows in (1, 2, 3):
+        a, b = _spectra(rng, rows, n), _spectra(rng, rows, n)
+        got = corr_block_model(a, b, mask, n)
+        t = torch.from_numpy
+        want = cf.whitened_corr_plain(t(a), t(b), t(mask), n).numpy()
+        assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("n,mics,want", [
+    (4, 2, 1), (128, 4, 1), (4096, 4, 1), (4096, 8, 1), (4096, 10, 1),
+    (4096, 11, 0), (2048, 24, 1), (2048, 26, 0), (8192, 3, 128),
+    (65536, 4, 256), (65536, 10, 256), (65536, 11, 0), (1 << 18, 8, 0),
+    (1 << 19, 4, 1024), (1 << 20, 2, 0), (1 << 21, 4, 0)])
+def test_gcc_schedule_rule(n, mics, want):
+    """K1's schedule (``gcc_schedule``): one block up to 4,096 where the
+    twiddles, a scene's widest span of packed rows and a spare row fit one
+    block's shared memory; above, K2's GCC stage's split (one rule, so K1
+    and K2 take one schedule a shape); else the passes."""
+    got = cf.gcc_schedule(n, mics)
+    assert got == want
+    if n <= cf.FFT_REAL_ONE_BLOCK:
+        smem = 8 * (n // 2 + ((mics + 1) // 2 + 1) * n)
+        assert (smem <= cf.SMEM_OPTIN) == (got == 1)
+    else:
+        assert got == cf.scene_stages(n, mics)[1]
+
+
+@pytest.mark.parametrize("n,want", [
+    (4, 1), (128, 1), (4096, 1), (8192, 128), (65536, 256), (131072, 512),
+    (1 << 20, 1024), (1 << 21, 0)])
+def test_corr_schedule_rule(n, want):
+    """K9's schedule (``corr_schedule``): one block up to 4,096, K4a's
+    split up to 2^20 (its row pass's one strip fits at 1024 x 1024), the
+    passes above."""
+    assert cf.corr_schedule(n) == want
+    if 1 < want:
+        assert cf._row_pass_smem(want, n // want, 1) <= cf.SMEM_OPTIN

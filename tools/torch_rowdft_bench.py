@@ -35,13 +35,18 @@ launch path over 10,000 calls (``host_steps``).  ``k6`` (``--k6``) times
 K6 at the noise null's shapes (``K6_SHAPES``) and ``scene``
 (``--scene``) K5, K3 and K2 at the sweep's, the api's, an odd mic count's
 and the reverberant render's shapes (``SCENE_SHAPES``), each case held
-against its twin, by CUDA events and in device time by kernel.
+against its twin, by CUDA events and in device time by kernel.  ``gcc``
+(``--gcc``) times K1 at the api's, no_gate's, ``bench_gcc_phat``'s, the
+reverberant sweep's, the multi-source cube's, an odd edge's and a
+passes shape (``GCC_SHAPES``) and K9 at the single pair's lengths and an
+edge (``CORR_SHAPES``), each held against its twin, by CUDA events and in
+device time by kernel, beside the twin's times (cuFFT).
 
 It imports numpy and torch only.  Run from the repository root on the
 machine with the card:
 
     python tools/torch_rowdft_bench.py [--reps 5] [--k4a | --boot | --k6 |
-                                        --scene]
+                                        --scene | --gcc]
 
 ``chip_smoke.py`` runs it once as its phase 7 (``run``).  To A/B two
 versions of the package in one call, run this file from a copy of each
@@ -96,6 +101,20 @@ SCENE_SHAPES = {"sweep": (512, 4, 1, 44356, 44100, 65536, 6),
 # Absolute limits against the twins (chip_smoke's phase 3): the render's
 # finalized signals and the windows of correlations, bounded by 1.
 SCENE_TOL = {"scene_windowed": 1e-5, "delay_sum": 2e-5, "gcc_windowed": 1e-6}
+# K1 (scenes or None for one scene, mics, samples, nfft, band) and K9
+# (row pairs, samples, nfft) at chip_smoke.py's phase-3 shapes; the limit
+# is absolute (correlations bounded by 1).
+BAND = (300.0, 3400.0)
+GCC_SHAPES = {"api": (None, 4, 44100, 65536, BAND),
+              "no_gate": (None, 4, 44100, 131072, None),
+              "main": (256, 4, 44100, 65536, None),
+              "reverb": (512, 4, 4000, 4096, BAND),
+              "multi": (128, 8, 4000, 4096, BAND),
+              "edge": (5, 3, 1500, 2048, BAND),
+              "passes": (None, 11, 44100, 65536, BAND)}
+CORR_SHAPES = {"main": (1, 44100, 65536), "no_gate": (1, 44100, 131072),
+               "edge": (3, 3000, 4096)}
+GCC_TOL = 1e-6
 
 
 def time_ms(fn, reps: int, loops: int = 3):
@@ -439,6 +458,58 @@ def scene(reps: int = 5, log=print) -> dict:
     return out
 
 
+def gcc(reps: int = 5, log=print) -> dict:
+    """K1 (``gcc_all_pairs``) at ``GCC_SHAPES`` and K9 (``whitened_corr``)
+    at ``CORR_SHAPES``, each held against its twin within ``GCC_TOL``:
+    CUDA-event ms per call (median of three loops) and device ms per call
+    by kernel, the kernel's and the twin's.  Logs one line per case and
+    returns {(name, shape): {"ms", "device", "plain_ms", "plain_device"}}."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = {}
+    for shape, (scenes, mics, n, nfft, band) in GCC_SHAPES.items():
+        sig = torch.randn((mics, n) if scenes is None else (scenes, mics, n),
+                          generator=gen, device=dev)
+        pairs = [(i, j) for i in range(mics) for j in range(i + 1, mics)]
+        pi, pj = [p[0] for p in pairs], [p[1] for p in pairs]
+        mask = cf.band_mask(nfft, band, 44100.0, device=dev)
+        cases[("gcc_all_pairs", shape)] = (
+            f"{scenes or 1} x {mics} mics x {n} -> {nfft}",
+            lambda sig=sig, pi=pi, pj=pj, nfft=nfft, mask=mask:
+            cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
+            lambda sig=sig, pi=pi, pj=pj, nfft=nfft, mask=mask:
+            cf.gcc_all_pairs_plain(sig, pi, pj, nfft, mask))
+    for shape, (rows, n, nfft) in CORR_SHAPES.items():
+        spec = cf.fft_real_plain(torch.randn((2 * rows, n), generator=gen,
+                                             device=dev), nfft)
+        a, b = spec[:rows].contiguous(), spec[rows:].contiguous()
+        mask = cf.band_mask(nfft, None, None, device=dev)
+        cases[("whitened_corr", shape)] = (
+            f"{rows} row pairs x {n} -> {nfft}",
+            lambda a=a, b=b, nfft=nfft, mask=mask:
+            cf.whitened_corr(a, b, mask, nfft),
+            lambda a=a, b=b, nfft=nfft, mask=mask:
+            cf.whitened_corr_plain(a, b, mask, nfft))
+    out = {}
+    for (name, shape), (what, call, twin) in cases.items():
+        got, ms = time_ms(call, reps)
+        want, plain_ms = time_ms(twin, reps)
+        err, _ = check(f"{name} [{shape}]", got, want, GCC_TOL / float(
+            want.abs().max()))
+        del got, want
+        res = {"ms": ms, "device": device_ms(call, 3), "plain_ms": plain_ms,
+               "plain_device": device_ms(twin, 3)}
+        out[(name, shape)] = res
+        log(f"{name} [{shape}] {what}: {ms:.4f} ms; device "
+            f"{res['device']['total']:.4f} ms in "
+            f"{res['device']['kernels']:g} kernels a call "
+            f"({_split(res['device'])}); twin {plain_ms:.4f} ms, device "
+            f"{res['plain_device']['total']:.4f} ms; max |kernel - plain| "
+            f"{err:.2e}")
+        torch.cuda.empty_cache()
+    return out
+
+
 def host_steps(spec: torch.Tensor, log=print, calls: int = HOST_CALLS):
     """Host time per call (µs: ``time.perf_counter`` around ``calls``
     calls, synchronized at both ends) of each step of a wrapper's launch
@@ -499,6 +570,9 @@ def main() -> int:
     ap.add_argument("--scene", action="store_true",
                     help="time only K5, K3 and K2 at the sweep's, the "
                          "api's, an odd and the reverberant shapes")
+    ap.add_argument("--gcc", action="store_true",
+                    help="time only K1 and K9 at chip_smoke.py's shapes, "
+                         "beside their cuFFT twins")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_rowdft_bench: needs an NVIDIA card", file=sys.stderr)
@@ -516,11 +590,13 @@ def main() -> int:
     if args.boot:
         boot(2 * args.reps, log)
         return 0
-    if args.k6 or args.scene:
+    if args.k6 or args.scene or args.gcc:
         if args.k6:
             k6(2 * args.reps, log)
         if args.scene:
             scene(args.reps, log)
+        if args.gcc:
+            gcc(args.reps, log)
         return 0
     run(args.reps, log)
     if args.k4a:
