@@ -25,9 +25,10 @@ Drives the port's main paths on ``cuda`` at full width (4 mics, 44.1 kHz,
    run: the
    inverse, rep = 8 and zero_top at n2 = 64 and 1024, the lane DFT's
    whitening prologue on independent spectra, the GCC-like chain on four
-   planes of their own and on the TPU tool's scaled copies, and precision
-   controls (one or two of the three TF32 products) that must miss the
-   limit the kernels meet;
+   planes of their own and on the TPU tool's scaled copies, precision
+   controls of K10a (one or two of the three TF32 products) that must
+   miss the limit the kernel meets, and the device kernels a call of K10a
+   and K10c runs (one a transform);
 4. ``localize_sound_source`` in physical mode
    (``python -m pyaudiolocalization_tpu_torch --physical --no-calibration
    --no-plots``) on the demo scene and an off-centre chirp scene, cold and
@@ -276,7 +277,7 @@ def kernel_phase(cf, torch):
         """Logs the device time and kernels per call (``torch.profiler``);
         raises unless a call runs ``kernels`` device kernels, where
         given."""
-        dev_k = device_ms(fn, calls)
+        dev_k = traced(bench, fn, calls, kernels)
         log(f"{name} device time per call: {dev_k['total']:.4f} ms in "
             f"{dev_k['kernels']:g} kernels ({bench._split(dev_k)})")
         if kernels is not None and dev_k["kernels"] != kernels:
@@ -575,17 +576,37 @@ def kernel_phase(cf, torch):
     return results
 
 
+def traced(bench, fn, calls, want=None):
+    """``device_ms`` of ``fn`` (the tool's ``torch.profiler`` trace).  A
+    trace now and then records no kernel at all, or only some of a call's,
+    and never one that did not run: up to three traces are taken until one
+    records ``want`` kernels a call (or, without ``want``, a whole number
+    of them), and the one that records the most is returned."""
+    best = None
+    for _ in range(3):
+        dev = bench.device_ms(fn, calls)
+        if best is None or dev["kernels"] > best["kernels"]:
+            best = dev
+        whole = dev["kernels"] and float(dev["kernels"]).is_integer()
+        if whole and want in (None, dev["kernels"]):
+            break
+    return best
+
+
 def rowdft_checks(torch):
     """Phase 3 for K10, the cases that phase 7's bench (which holds every
     kernel against its twin at its five shapes) does not run: the inverse,
     rep 8 and zero_top at edge shapes; the lane DFT's whitening prologue on
     independent spectra; the chain on four planes of their own and the TPU
-    tool's chain (four scaled copies of one plane) at n2 = 64; and the
-    precision controls, K10a and K10c with one or two of the three TF32
-    products, which must miss the limit that the kernels meet.  Limits are
-    ``rowdft.TRANSFORM_TOL`` and ``CHAIN_TOL`` of max|twin|."""
+    tool's chain (four scaled copies of one plane) at n2 = 64; the
+    precision controls, K10a with one or two of the three TF32 products,
+    which must miss the limit that the kernel meets; and the device
+    kernels a call of K10a (rep 1 and 3) and K10c runs, one a transform
+    (``torch.profiler``).  Limits are ``rowdft.TRANSFORM_TOL`` and
+    ``CHAIN_TOL`` of max|twin|."""
     from pyaudiolocalization_tpu_torch.ops import rowdft as rd
-    check = _load_tool("torch_rowdft_bench").check
+    bench = _load_tool("torch_rowdft_bench")
+    check = bench.check
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     tt = rd.TRANSFORM_TOL
@@ -625,27 +646,35 @@ def rowdft_checks(torch):
              rd.chain(x4, schedule), rd.chain_plain(x4), rd.CHAIN_TOL)
         held(f"chain[{schedule}, the tool's scaled copies] B=32 n2=64",
              rd.chain(x4[0], schedule), rd.chain_plain(x4[0]), rd.CHAIN_TOL)
-    # The controls: the same kernels with fewer TF32 products.
+    # The controls: the same kernel with fewer TF32 products.
     xr, xi = planes(64, 512)
-    want_row = rd.row_dft_plain(xr, xi)
-    want_lane = rd.lane_dft_plain(xr, xi)
+    want = rd.row_dft_plain(xr, xi)
     for terms in (3, 2, 1):
-        for name, got, want in (
-                ("row_dft", rd._row_launch("row_dft", xr, xi, 512, False, 1,
-                                           1.0, terms=terms), want_row),
-                ("lane_dft", rd._lane_launch(xr, xi, terms=terms),
-                 want_lane)):
-            label = f"{name}[{terms} TF32 products] B=64 n2=512"
-            if terms == 3:
-                held(label, got, want)
-                continue
-            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-            rel = err / max(float(w.abs().max()) for w in want)
-            log(f"{label} (control): {rel:.3e} of max, must exceed {tt:g}")
-            if not rel > tt:
-                raise AssertionError(f"{label}: the control meets the limit "
-                                     f"{tt:g}, which cannot see the 3xTF32 "
-                                     "split")
+        got = rd._row_launch("row_dft", xr, xi, 512, False, 1, 1.0,
+                             terms=terms)
+        label = f"row_dft[{terms} TF32 products] B=64 n2=512"
+        if terms == 3:
+            held(label, got, want)
+            continue
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        rel = err / max(float(w.abs().max()) for w in want)
+        log(f"{label} (control): {rel:.3e} of max, must exceed {tt:g}")
+        if not rel > tt:
+            raise AssertionError(f"{label}: the control meets the limit "
+                                 f"{tt:g}, which cannot see the 3xTF32 "
+                                 "split")
+    # One device kernel a transform.
+    for name, fn, want_kernels in (
+            ("row_dft", lambda: rd.row_dft(xr, xi), 1),
+            ("row_dft rep 3", lambda: rd.row_dft(xr, xi, rep=3), 3),
+            ("lane_dft twiddle", lambda: rd.lane_dft(xr, xi, twiddle=True),
+             1)):
+        dev_ms = traced(bench, fn, 3, want_kernels)
+        log(f"{name} B=64 n2=512: {dev_ms['kernels']:g} device kernels a "
+            f"call, {dev_ms['total']:.4f} ms ({bench._split(dev_ms)})")
+        if dev_ms["kernels"] != want_kernels:
+            raise AssertionError(f"{name}: {dev_ms['kernels']:g} device "
+                                 f"kernels a call, want {want_kernels}")
 
 
 # ---------------------------------------------------------------------------

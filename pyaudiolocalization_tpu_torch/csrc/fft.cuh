@@ -31,8 +31,10 @@
 //    render and K2's GCC stages, both of them in K5, run it forward and
 //    back in three, the middle one holding the rows for both directions;
 //    K9 runs the back half in two); the length-n2 rows of a (n2, 128)
-//    plane are one (K10b).  Up to 4096 points one block holds a whole row
-//    (K4a, K4b, K6, K1, K9).
+//    plane are one (K10b, and K10a with its radix-16 stages on the tensor
+//    cores), and so are the 128-point lane DFTs of 32 of its rows (K10c).
+//    Up to 4096 points one block holds a whole row (K4a, K4b, K6, K1,
+//    K9).
 //    Bound: device memory, one read and one write per launch.
 #pragma once
 
@@ -270,16 +272,29 @@ __device__ __forceinline__ void stockham_stage(float2* x, int js, int ss,
   __syncthreads();
 }
 
+// block_fft's radix-16 stage: stockham_stage<S, 16>, the DFT-16 in float32
+// registers.  A caller may pass another stage of the same signature and
+// index maps (K10a's W16 product on the tensor cores, rowdft.cu).
+template <int S>
+struct Radix16 {
+  __device__ __forceinline__ void operator()(float2* x, int js, int ss,
+                                             int L, int p, const float2* stw,
+                                             float sgn) const {
+    stockham_stage<S, 16>(x, js, ss, L, p, stw, sgn);
+  }
+};
+
 // In-place L-point FFT (L a power of two >= 4) of S sequences in shared
 // memory, point j of sequence s at x[j*js + s*ss], natural order in and
 // out: one stage of radix 2^(log2(L) mod 4) first where that is not 1,
-// then radix-16 stages.  stw: the L/2 sub-twiddles in shared memory.
-// sgn = 1 forward, -1 the unscaled inverse.  Needs blockDim.x >=
+// then radix-16 stages (`stage16`).  stw: the L/2 sub-twiddles in shared
+// memory.  sgn = 1 forward, -1 the unscaled inverse.  Needs blockDim.x >=
 // fft_threads(L, S); every thread of the block calls it.  Synchronizes on
 // entry and exit.
-template <int S>
+template <int S, class Stage16 = Radix16<S>>
 __device__ void block_fft(float2* x, int js, int ss, int L,
-                          const float2* stw, float sgn) {
+                          const float2* stw, float sgn,
+                          const Stage16& stage16 = Stage16()) {
   __syncthreads();
   int bits = 0;
   while ((1 << bits) < L) ++bits;
@@ -287,7 +302,7 @@ __device__ void block_fft(float2* x, int js, int ss, int L,
   if (p == 2) stockham_stage<S, 2>(x, js, ss, L, 1, stw, sgn);
   if (p == 4) stockham_stage<S, 4>(x, js, ss, L, 1, stw, sgn);
   if (p == 8) stockham_stage<S, 8>(x, js, ss, L, 1, stw, sgn);
-  for (; p < L; p <<= 4) stockham_stage<S, 16>(x, js, ss, L, p, stw, sgn);
+  for (; p < L; p <<= 4) stage16(x, js, ss, L, p, stw, sgn);
 }
 
 }  // namespace palt

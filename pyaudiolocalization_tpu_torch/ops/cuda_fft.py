@@ -178,12 +178,11 @@ def _library() -> ctypes.CDLL:
             "palt_scene_windowed": [p, i, i, p, p, i, i, i, i, i, i, p, p, p,
                                     p, p, i, p, f, i, p, p, p, p, p, p, p, p,
                                     p, p, p, p, p],
-            "palt_row_dft": [p, p, i, i, i, i, i, f, p, p, p, p, p, p, p, i,
-                             i, p],
+            "palt_row_dft": [p, p, i, i, i, i, i, f, p, p, p, p, p, i, i,
+                             p],
             "palt_row_stages": [p, p, i, i, i, i, i, f, p, p, p, p, p, i,
                                 p],
-            "palt_lane_dft": [p, p, p, p, i, i, f, i, p, p, p, p, p, p,
-                              i, p],
+            "palt_lane_dft": [p, p, p, p, i, i, f, i, p, p, p, p, p, p, p],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)

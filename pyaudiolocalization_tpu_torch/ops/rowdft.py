@@ -10,17 +10,23 @@ position [t, s] holds ``X[s*n2 + t]``.  It times the row DFT two ways
 (G, G) x (G, 128) matrix product per digit, G = n2 / 8) and three
 granularities (the row DFT alone, one full forward, a GCC-like chain).
 
-Three hand-written kernels (``csrc/rowdft.cu``) replace its bodies:
+Three hand-written kernels (``csrc/rowdft.cu``) replace its bodies, each
+one launch per transform on the shared FFT's on-chip stages
+(``csrc/fft.cuh``'s ``block_fft``):
 
 ================= ===================================== ====================
 wrapper           replaces (tools/mxu_rowdft_bench.py)  bound on an H100
 ================= ===================================== ====================
 ``row_dft``       ``_rowdft_kernel`` / ``_rowinv_kernel`` plane read + write
-                  (:181, :192)                          (tensor cores, TF32)
+                  (:181, :192)                          (strips; radix-16
+                                                        stages as W16
+                                                        products, 3xTF32)
 ``row_stages``    ``_stages_kernel`` (:170)             plane read + write
-                                                        (on-chip stages)
+                                                        (strips; float32
+                                                        stages)
 ``lane_dft``      ``_lane_kernel`` (:317) and the       plane read + write
-                  forward / chain glue (:198-314)       (tensor cores, TF32)
+                  forward / chain glue (:198-314)       (32 rows a block;
+                                                        float32 stages)
 ================= ===================================== ====================
 
 The port keeps natural order everywhere: the TPU's permuted row orders
@@ -35,10 +41,11 @@ their own, (4, B, n2, 128), which is what the checks feed it.  Rep chains
 (``rep`` > 1, x1e-3 between transforms) chain in natural order.
 
 Every wrapper checks float32, contiguity and n2 in {64, ..., 1024} (the
-tool's range, G >= 8) and raises outside them, then takes the plain twin
-(``*_plain``, ``torch.fft``) for CPU tensors and launches its kernels for
-CUDA tensors, counting launches in ``cuda_fft.LAUNCHES`` under
-``row_dft``, ``row_stages`` and ``lane_dft``.
+tool's range) and raises outside them (``lane_dft`` on CUDA also planes
+that start on a 16-byte boundary, for its 16-byte loads), then takes the
+plain twin (``*_plain``, ``torch.fft``) for CPU tensors and launches its
+kernels for CUDA tensors, counting launches in ``cuda_fft.LAUNCHES``
+under ``row_dft``, ``row_stages`` and ``lane_dft``.
 """
 
 from __future__ import annotations
@@ -56,9 +63,10 @@ MIN_N2 = 64
 MAX_N2 = 1024
 CHAIN_EPS = 1e-6
 # Kernel against twin on the card, relative to max|twin|.  Transforms: the
-# 3xTF32 kernels read 2.5e-7 to 3.7e-6 at rep 1 and 1.3e-5 after rep 8 on
-# an H100; dropping one of the three products gives ~1.3e-4 and plain TF32
-# ~2.7e-4 (the CPU emulation in tests/test_torch_rowdft.py), both well
+# kernels read 1.9e-7 to 6.5e-7 at rep 1 and up to 3.0e-6 after rep 8 on an
+# H100; K10a's radix-16 products in TF32 without the data's low part give
+# 2.3e-4 to 2.9e-4 and plain TF32 2.4e-4 to 3.6e-4 (the CPU emulation in
+# tests/test_torch_rowdft.py; 3.0e-4 and 3.5e-4 on the card), both well
 # over this limit.  The chain: the TPU tool's 2e-3.
 TRANSFORM_TOL = 5e-5
 CHAIN_TOL = 2e-3
@@ -69,21 +77,10 @@ Planes = Tuple[torch.Tensor, torch.Tensor]
 
 
 # ---------------------------------------------------------------------------
-# Host constants: float64, rounded once to float32.
+# Host constants: float64, rounded once to float32.  The kernels' stage
+# twiddles are ``cuda_fft._twiddles(n2)`` and ``cuda_fft._twiddles(128)``;
+# K10a's W16 is made on the card (``kCos16``, csrc/rowdft.cu).
 # ---------------------------------------------------------------------------
-
-@functools.lru_cache(maxsize=16)
-def twiddle_table(n: int) -> np.ndarray:
-    """(n, 2) float32 table of exp(-2 pi i e / n), e < n; exact zeros kept
-    exact.  The kernels read their matrices through it: the row DFT's fused
-    matrices W'_p[m, g] = W_G^{g m} w^{g p} = table_n2[g (8m + p) mod n2]
-    (w = exp(-2 pi i / n2), G = n2 / 8; the inverse takes the conjugates)
-    and the lane DFT's W_128^{p s} = table_128[p s mod 128]."""
-    ang = -2.0 * np.pi * np.arange(n) / n
-    tab = np.stack([np.cos(ang), np.sin(ang)], -1)
-    tab[np.abs(tab) < 1e-12] = 0.0
-    return tab.astype(np.float32)
-
 
 def _long_twiddle64(n2: int) -> np.ndarray:
     return np.exp(-2j * np.pi * np.outer(np.arange(n2), np.arange(N1))
@@ -98,12 +95,9 @@ def long_twiddle(n2: int):
 
 
 @functools.lru_cache(maxsize=32)
-def _on(name: str, n: int, device: str):
-    """A host constant on ``device``: the long twiddle ("tw", n = n2) as
-    (re, im), or the table ("table", n entries)."""
-    if name == "tw":
-        return tuple(torch.from_numpy(a).to(device) for a in long_twiddle(n))
-    return torch.from_numpy(twiddle_table(n)).to(device)
+def _long_twiddle_on(n2: int, device: str):
+    """``long_twiddle(n2)`` on ``device`` as (re, im)."""
+    return tuple(torch.from_numpy(a).to(device) for a in long_twiddle(n2))
 
 
 # ---------------------------------------------------------------------------
@@ -228,7 +222,8 @@ def _row_launch(kind: str, xr, xi, n2: int, inverse: bool, rep: int,
     """One entry of K10a (``row_dft``) or K10b (``row_stages``).  mode 0
     returns new complex planes; 1 writes the real part into ``out_r``; 2
     adds it there.  ``terms``: K10a's TF32 products per real product, 3
-    (3xTF32), or 2 and 1 for the precision controls."""
+    (3xTF32), or 2 (the data in TF32) and 1 (plain TF32) for the precision
+    controls."""
     if rep < 1:
         raise ValueError(f"{kind}: rep must be >= 1, got {rep}")
     lib = cf._library()
@@ -239,36 +234,27 @@ def _row_launch(kind: str, xr, xi, n2: int, inverse: bool, rep: int,
         out_r = torch.empty(shape, dtype=torch.float32, device=dev)
     out_i = (torch.empty(shape, dtype=torch.float32, device=dev)
              if mode == 0 else None)
-    stages = kind == "row_stages"
-    # Planes between chained transforms: K10b runs them in place in one
-    # pair, K10a ping-pongs between two.
-    count = 2 if stages else 4
+    # The planes between chained transforms, which run in place.
     scratch = ([torch.empty(shape, dtype=torch.float32, device=dev)
-                for _ in range(count)] if rep > 1 else [None] * count)
-    if stages:
-        cf._launch(kind, dev, lib.palt_row_stages, xr.data_ptr(), _ptr(xi),
-                   planes, n2, xr.shape[1], int(inverse), rep, scale,
-                   cf._twiddles(n2, str(dev)).data_ptr(),
-                   *[_ptr(s) for s in scratch], out_r.data_ptr(),
-                   _ptr(out_i), mode)
+                for _ in range(2)] if rep > 1 else [None, None])
+    args = (xr.data_ptr(), _ptr(xi), planes, n2, xr.shape[1], int(inverse),
+            rep, scale, cf._twiddles(n2, str(dev)).data_ptr(),
+            *[_ptr(s) for s in scratch], out_r.data_ptr(), _ptr(out_i), mode)
+    if kind == "row_stages":
+        cf._launch(kind, dev, lib.palt_row_stages, *args)
     else:
-        cf._launch(kind, dev, lib.palt_row_dft, xr.data_ptr(), _ptr(xi),
-                   planes, n2, xr.shape[1], int(inverse), rep, scale,
-                   _on("table", n2, str(dev)).data_ptr(),
-                   *[_ptr(s) for s in scratch], out_r.data_ptr(),
-                   _ptr(out_i), mode, terms)
+        cf._launch(kind, dev, lib.palt_row_dft, *args, terms)
     return out_r, out_i
 
 
 def _lane_launch(ar, ai, br=None, bi=None, conj: bool = False,
-                 twiddle: bool = False, natural: bool = False,
-                 terms: int = 3):
+                 twiddle: bool = False, natural: bool = False):
     """One entry of K10c; returns planes, or the (B, N) complex row in
-    natural bin order when ``natural``.  ``terms`` as ``_row_launch``'s."""
+    natural bin order when ``natural``."""
     lib = cf._library()
     dev = ar.device
     planes, n2, _ = ar.shape
-    tw = _on("tw", n2, str(dev)) if twiddle else (None, None)
+    tw = _long_twiddle_on(n2, str(dev)) if twiddle else (None, None)
     out_r = out_i = out_nat = None
     if natural:
         out_nat = torch.empty((planes, n2 * N1), dtype=torch.complex64,
@@ -279,8 +265,8 @@ def _lane_launch(ar, ai, br=None, bi=None, conj: bool = False,
     cf._launch("lane_dft", dev, lib.palt_lane_dft, ar.data_ptr(), _ptr(ai),
                _ptr(br), _ptr(bi), planes, n2, CHAIN_EPS, int(conj),
                _ptr(tw[0]), _ptr(tw[1]),
-               _on("table", N1, str(dev)).data_ptr(), _ptr(out_r),
-               _ptr(out_i), _ptr(out_nat), terms)
+               cf._twiddles(N1, str(dev)).data_ptr(), _ptr(out_r),
+               _ptr(out_i), _ptr(out_nat))
     return out_nat if natural else (out_r, out_i)
 
 
@@ -298,9 +284,10 @@ def _schedule(name: str, schedule: str) -> str:
 def row_dft(xr: torch.Tensor, xi: Optional[torch.Tensor] = None,
             inverse: bool = False, rep: int = 1,
             zero_top: bool = False) -> Planes:
-    """``row_dft_plain`` on the tensor cores (K10a ``palt_row_dft``:
-    DFT-8 over the leading digit, then one fused (G, G) x (G, 128) complex
-    product per digit in 3xTF32).  ``xi=None`` marks a real input."""
+    """``row_dft_plain`` with its radix-16 stages on the tensor cores (K10a
+    ``palt_row_dft``: K10b's strips and stages, each radix-16 stage a W16
+    product in 3xTF32; one launch per transform).  ``xi=None`` marks a real
+    input."""
     n2 = _n2(xr, zero_top)
     _check("row_dft", n2, xr, xi)
     if cf._use_plain(*[t for t in (xr, xi) if t is not None]):
@@ -324,13 +311,17 @@ def row_stages(xr: torch.Tensor, xi: Optional[torch.Tensor] = None,
 
 def lane_dft(xr: torch.Tensor, xi: torch.Tensor, conj: bool = False,
              twiddle: bool = False, cross: Optional[Planes] = None) -> Planes:
-    """``lane_dft_plain`` on the tensor cores (K10c ``palt_lane_dft``:
-    (32 x 128) x (128 x 128) complex products in 3xTF32; the whitened
-    cross spectrum with ``cross`` is its prologue)."""
+    """``lane_dft_plain`` on chip (K10c ``palt_lane_dft``: 32 rows a
+    block, one radix-8 and one radix-16 float32 stage in shared memory;
+    the whitened cross spectrum with ``cross`` and the long twiddle are its
+    prologue, the conjugate twiddle its epilogue)."""
     live = (xr, xi) + (tuple(cross) if cross is not None else ())
     _check("lane_dft", xr.shape[1], *live)
     if cf._use_plain(*live):
         return lane_dft_plain(xr, xi, conj, twiddle, cross)
+    if any(t.data_ptr() % 16 for t in live):
+        raise ValueError("lane_dft: the kernel reads 16 bytes at a time; "
+                         "planes must start on a 16-byte boundary")
     return _lane_launch(xr, xi, *(cross or (None, None)), conj=conj,
                         twiddle=twiddle)
 

@@ -1100,3 +1100,362 @@ def test_corr_schedule_rule(n, want):
     assert cf.corr_schedule(n) == want
     if 1 < want:
         assert cf._row_pass_smem(want, n // want, 1) <= cf.SMEM_OPTIN
+
+
+# ---------------------------------------------------------------------------
+# K10a and K10c (csrc/rowdft.cu): the radix-16 stage as a W16 product on
+# the tensor cores over K10b's strips, and the lane DFT on block_fft
+# ---------------------------------------------------------------------------
+
+LANE_ROWS = 32       # kLaneRows: the rows one lane-DFT block holds
+LANE_LD = 129        # kLaneLd: their stride in float2
+LANE_THREADS = 256   # fft_threads(128, kLaneRows)
+
+
+def _strided(js, ss):
+    """``Strided``: point j of sequence s at slot j*js + s*ss."""
+    return lambda j, s: j * js + s * ss
+
+
+def _stage_flat(buf, at, L, S, p, R, stw, sgn):
+    """``stockham_stage<S, R>`` on a flat shared buffer (..., slots), point
+    j of sequence s at slot at(j, s): butterfly ``task`` (sequence
+    s = task mod S, i = task // S) reads points i + m*L/R and writes
+    base + m*p.  Returns the new buffer and the read slots (tasks, R)."""
+    q = L // R
+    task = np.arange(q * S)
+    s, i = task % S, task // S
+    k = i & (p - 1)
+    tstep = L // (p * R)
+    reads = at(i[:, None] + np.arange(R) * q, s[:, None])
+    v = [buf[..., reads[:, m]] for m in range(R)]
+    if p > 1:
+        v = [v[0]] + [v[m] * _twiddle(stw, m * k * tstep, sgn)
+                      for m in range(1, R)]
+    y = _dft_small(v, sgn)
+    writes = at(((i - k) * R + k)[:, None] + np.arange(R) * p, s[:, None])
+    assert np.array_equal(np.sort(writes, None), np.sort(reads, None))
+    out = buf.copy()
+    for m in range(R):
+        out[..., writes[:, m]] = y[m]
+    return out, reads
+
+
+def block_fft_flat(buf, at, L, S, sgn=1.0, stage16=None):
+    """``block_fft<S>`` on a flat buffer, point j of sequence s at slot
+    at(j, s); ``stage16`` (same arguments as ``_stage_flat`` without R)
+    replaces the float32 radix-16 stage.  Returns the buffer and each
+    stage's read slots."""
+    stw = _half_table(L)
+    p = 1 << ((L.bit_length() - 1) & 3)
+    reads = []
+    if p > 1:
+        buf, r = _stage_flat(buf, at, L, S, 1, p, stw, sgn)
+        reads.append(r)
+    while p < L:
+        if stage16 is None:
+            buf, r = _stage_flat(buf, at, L, S, p, 16, stw, sgn)
+        else:
+            buf, r = stage16(buf, at, L, S, p, stw, sgn)
+        reads.append(r)
+        p *= 16
+    return buf, reads
+
+
+def _ways(addr):
+    """Wavefronts an 8-byte shared-memory access of consecutive threads
+    takes, the most over its half-warps: distinct addresses (float2
+    slots) in one of the 16 bank pairs."""
+    worst = 1
+    for h in range(0, addr.size, 16):
+        a = np.unique(addr[h:h + 16])
+        worst = max(worst, int(np.bincount(a % 16).max()))
+    return worst
+
+
+def _stage_ways(reads, threads):
+    """The worst ``_ways`` over a stage's reads: thread t takes butterflies
+    t + u*threads, one read instruction a point m."""
+    worst = 1
+    for u in range(0, reads.shape[0], threads):
+        for m in range(reads.shape[1]):
+            worst = max(worst, _ways(reads[u:u + threads, m]))
+    return worst
+
+
+def _lane_load_map():
+    """K10c's 16-byte loads: thread idx < LANE_ROWS * 32 takes row
+    idx // 32, lanes 4 (idx % 32) .. + 3; (rows, lanes) of every point in
+    the order the threads take them."""
+    idx = np.arange(LANE_ROWS * 32)
+    rows = np.repeat(idx >> 5, 4)
+    cols = (4 * (idx & 31)[:, None] + np.arange(4)).ravel()
+    return rows, cols
+
+
+def lane_dft_model(ar, ai, n2, conj=False, twiddle=False, cross=None,
+                   natural=False):
+    """K10c on (B, n2, 128) planes, block by block (LANE_ROWS rows from
+    t0): the load map (``_lane_load_map``) with the whitening and forward
+    twiddle prologues into shared memory at stride LANE_LD, ``block_fft``
+    at L = 128, js = 1, ss = LANE_LD, then the planes stored by the load
+    map with the conjugate twiddle, or the natural-order store (thread idx:
+    r = idx % LANE_ROWS, s = idx // LANE_ROWS -> bin s*n2 + t0 + r)."""
+    planes = ar.shape[0]
+    a = ar + 1j * ai
+    if cross is not None:
+        r = a * np.conj(cross[0] + 1j * cross[1])
+        a = r / (np.abs(r) + 1e-6)
+    tw = np.exp(-2j * np.pi * np.outer(np.arange(n2), np.arange(128))
+                / (n2 * 128))
+    rows, cols = _lane_load_map()
+    slots = rows * LANE_LD + cols
+    assert np.unique(slots).size == slots.size == LANE_ROWS * 128
+    idx = np.arange(LANE_ROWS * 128)
+    nat_r, nat_s = idx % LANE_ROWS, idx // LANE_ROWS
+    out = np.full((planes, n2 * 128) if natural else (planes, n2, 128),
+                  np.nan, complex)
+    for t0 in range(0, n2, LANE_ROWS):
+        v = a[:, t0 + rows, cols]
+        if twiddle and not conj:
+            v = v * tw[t0 + rows, cols]
+        buf = np.full((planes, LANE_ROWS * LANE_LD), np.nan, complex)
+        buf[:, slots] = v
+        buf, _ = block_fft_flat(buf, _strided(1, LANE_LD), 128, LANE_ROWS,
+                                -1.0 if conj else 1.0)
+        if natural:
+            z = buf[:, nat_r * LANE_LD + nat_s]
+            if twiddle and conj:
+                z = z * np.conj(tw[t0 + nat_r, nat_s])
+            out[:, nat_s * n2 + t0 + nat_r] = z
+        else:
+            z = buf[:, slots]
+            if twiddle and conj:
+                z = z * np.conj(tw[t0 + rows, cols])
+            out[:, t0 + rows, cols] = z
+    assert not np.isnan(out).any()
+    return out
+
+
+@pytest.mark.parametrize("n2", [64, 128, 256, 512, 1024])
+def test_lane_dft_schedule_matches_fft(n2):
+    """Every prologue and epilogue against np.fft along the lanes: plain,
+    the forward long twiddle (planes and natural order), the conjugate DFT
+    with the conjugate twiddle (planes and natural order) and with the
+    whitening prologue, and the whitening alone."""
+    rng = np.random.default_rng(n2)
+    ar, ai, br, bi = (rng.standard_normal((2, n2, 128)) for _ in range(4))
+    z = ar + 1j * ai
+    tw = np.exp(-2j * np.pi * np.outer(np.arange(n2), np.arange(128))
+                / (n2 * 128))
+    r = z * np.conj(br + 1j * bi)
+    white = r / (np.abs(r) + 1e-6)
+    t, s = np.meshgrid(np.arange(n2), np.arange(128), indexing="ij")
+
+    def nat(planes):
+        flat = np.empty((planes.shape[0], n2 * 128), complex)
+        flat[:, s * n2 + t] = planes
+        return flat
+
+    fwd_tw = np.fft.fft(z * tw, axis=2)
+    inv_tw = 128 * np.fft.ifft(z, axis=2) * np.conj(tw)
+    cases = [({}, np.fft.fft(z, axis=2)),
+             ({"twiddle": True}, fwd_tw),
+             ({"twiddle": True, "natural": True}, nat(fwd_tw)),
+             ({"conj": True}, 128 * np.fft.ifft(z, axis=2)),
+             ({"conj": True, "twiddle": True}, inv_tw),
+             ({"conj": True, "twiddle": True, "natural": True}, nat(inv_tw)),
+             ({"conj": True, "twiddle": True, "cross": (br, bi)},
+              128 * np.fft.ifft(white, axis=2) * np.conj(tw)),
+             ({"cross": (br, bi)}, np.fft.fft(white, axis=2))]
+    for kw, want in cases:
+        got = lane_dft_model(ar, ai, n2, **kw)
+        assert np.abs(got - want).max() < 1e-9 * np.abs(want).max(), kw
+
+
+def test_lane_dft_bank_and_store_maps():
+    """block_fft's accesses at js = 1 and the odd row stride LANE_LD take
+    one wavefront a half-warp (16 rows in 16 bank pairs); at the unpadded
+    stride 128 they would take 16.  The natural-order store reads
+    [r * LANE_LD + s] for 16 consecutive r a half-warp (one wavefront) and
+    writes each s as one run of LANE_ROWS consecutive bins (256 bytes);
+    the loads and the planes' stores are 512-byte rows."""
+    buf = np.zeros((1, LANE_ROWS * LANE_LD), complex)
+    _, reads = block_fft_flat(buf, _strided(1, LANE_LD), 128, LANE_ROWS)
+    assert len(reads) == 2   # radix 8, then radix 16
+    assert all(_stage_ways(r, LANE_THREADS) == 1 for r in reads)
+    _, reads = block_fft_flat(np.zeros((1, LANE_ROWS * 128), complex),
+                              _strided(1, 128), 128, LANE_ROWS)
+    assert max(_stage_ways(r, LANE_THREADS) for r in reads) == 16
+    idx = np.arange(LANE_ROWS * 128)
+    r, s = idx % LANE_ROWS, idx // LANE_ROWS
+    assert _ways(r * LANE_LD + s) == 1
+    n2 = 512
+    bins = (s * n2 + r).reshape(-1, LANE_ROWS)
+    assert (np.diff(bins, axis=1) == 1).all()
+    rows, cols = _lane_load_map()
+    first = (rows * 128 + cols)[::4].reshape(-1, 32)  # a warp's float4s
+    assert (np.diff(first, axis=1) == 4).all()
+
+
+def _k10a_strip(n2):
+    """Lanes a K10a block holds: 16 up to n2 = 256, 8 at 512, 4 at 1024
+    (at most 256 threads a block, ``row_dft_strip``)."""
+    return 16 if n2 <= 256 else 4096 // n2
+
+
+
+def _mma_fragments(sgn):
+    """m16n8k8 TF32 fragment maps of lane l (gid = l // 4, tig = l % 4):
+    W16 as ``make_w16`` builds the A registers of the two k8 halves
+    (register r: row gid + 8 (r & 1), column tig + 4 (r >> 1) of the half,
+    W16^{row * col mod 16}), gathered into (2, 16, 8); B register b of
+    half ks: row tig + 4b, column gid; accumulator register h: row
+    gid + 8 (h >> 1), column 2 tig + (h & 1)."""
+    lane = np.arange(32)
+    gid, tig = lane // 4, lane % 4
+    a = np.full((2, 16, 8), np.nan, complex)
+    seen = np.zeros((2, 16, 8), int)
+    for ks in range(2):
+        for r in range(4):
+            row, col = gid + 8 * (r & 1), tig + 4 * (r >> 1)
+            a[ks, row, col] = _w16((row * (8 * ks + col)) & 15, sgn)
+            np.add.at(seen[ks], (row, col), 1)
+    assert (seen == 1).all()
+    full = np.exp(-2j * np.pi * sgn * np.outer(np.arange(16), np.arange(16))
+                  / 16)
+    assert np.abs(np.concatenate([a[0], a[1]], 1) - full).max() < 1e-13
+    c_row = gid[:, None] + 8 * (np.arange(4) >> 1)
+    c_col = 2 * tig[:, None] + (np.arange(4) & 1)
+    cells = np.zeros((16, 8), int)
+    np.add.at(cells, (c_row, c_col), 1)
+    assert (cells == 1).all()
+    return a, gid, tig, c_row, c_col
+
+
+def mma_stage(buf, at, L, S, p, stw, sgn):
+    """K10a's radix-16 stage (``MmaRadix16``): warp w takes butterflies
+    32w .. 32w + 31 (sequence fastest) as four n8 tiles; in tile j, lane
+    (gid, tig) loads inputs m = tig + 4c (c < 4) of butterfly
+    32w + 8j + gid, times the stage twiddle W_L^{m k L/(16p)}, into B
+    register c & 1 of k8 half c >> 1; the product with W16 leaves output m
+    = row of butterfly 32w + 8j + column in each accumulator register,
+    stored at base + m p (butterflies 2 tig and 2 tig + 1 in neighbouring
+    slots, one 16-byte store).  Returns the buffer and the read slots."""
+    q = L // 16
+    tasks = q * S
+    assert tasks % 32 == 0
+    warps = tasks // 32
+    tstep = L // (p * 16)
+    a, gid, tig, c_row, c_col = _mma_fragments(sgn)
+    w = np.arange(warps)[:, None]
+    out = buf.copy()
+    written = np.zeros(buf.shape[-1], int)
+    reads = np.empty((tasks, 16), int)
+    for j in range(4):
+        task = w * 32 + 8 * j + gid                      # (warps, 32)
+        s, i = task % S, task // S
+        k = i & (p - 1)
+        b = np.full(buf.shape[:-1] + (warps, 2, 8, 8), np.nan, complex)
+        for c in range(4):
+            m = tig + 4 * c
+            addr = at(i + m * q, s)
+            reads[task, m] = addr
+            v = buf[..., addr]
+            if p > 1:
+                v = v * _twiddle(stw, m * k * tstep, sgn)
+            b[..., w, c >> 1, tig + 4 * (c & 1), gid] = v
+        assert not np.isnan(b).any()
+        acc = a[0] @ b[..., 0, :, :] + a[1] @ b[..., 1, :, :]
+        for h in range(4):
+            row, col = c_row[:, h], c_col[:, h]
+            task = w * 32 + 8 * j + col
+            s, i = task % S, task // S
+            k = i & (p - 1)
+            addr = at((i - k) * 16 + k + row * p, s)
+            if h & 1:   # the upper half of the 16-byte store of h - 1
+                assert (s % 2 == 1).all()
+                assert (addr - 1 == at((i - k) * 16 + k + row * p, s - 1)
+                        ).all()
+            out[..., addr] = acc[..., w, row, col]
+            np.add.at(written, addr.ravel(), 1)
+    assert np.array_equal(np.sort(np.flatnonzero(written)),
+                          np.sort(reads, None))
+    assert written.max() == 1
+    return out, reads
+
+
+def row_dft_model(xr, xi, n2, inverse=False, rep=1, scale=1.0, out_r=None,
+                  mode=0):
+    """K10a on (B, rows_in, 128) planes: K10b's strips (``_k10a_strip``
+    lanes, point j of lane s at j*S + s) and stage loop, every radix-16
+    stage ``mma_stage``; rows >= rows_in zero; the input scaled on load;
+    per rep one launch."""
+    sgn = -1.0 if inverse else 1.0
+    S = _k10a_strip(n2)
+    cur = xr + (0 if xi is None else 1j * xi)
+    for it in range(rep):
+        planes, rows_in, lanes = cur.shape
+        strips = np.zeros((planes, lanes // S, n2, S), complex)
+        strips[:, :, :rows_in] = ((cur * (1e-3 if it else scale))
+                                  .reshape(planes, rows_in, lanes // S, S)
+                                  .transpose(0, 2, 1, 3))
+        done, _ = block_fft_flat(strips.reshape(planes, lanes // S, -1),
+                                 _strided(S, 1), n2, S, sgn, mma_stage)
+        cur = (done.reshape(planes, lanes // S, n2, S).transpose(0, 2, 1, 3)
+               .reshape(planes, n2, lanes))
+    if mode == 0:
+        return cur.real, cur.imag
+    if mode == 1:
+        return cur.real
+    return out_r + cur.real
+
+
+@pytest.mark.parametrize("n2", [64, 128, 256, 512, 1024])
+def test_row_dft_schedule_matches_fft(n2):
+    """K10a's fragment maps and stage twiddles: forward, zero_top with the
+    input scale, the unscaled inverse, rep 3 and the real-part modes 1 and
+    2 against np.fft along the rows, and the tensor stages' count (192
+    TF32 MACs a point each: 24 m16n8k8 products a tile of 8 butterflies)."""
+    rng = np.random.default_rng(n2)
+    xr = rng.standard_normal((2, n2, 128))
+    xi = rng.standard_normal((2, n2, 128))
+    z = xr + 1j * xi
+    want = np.fft.fft(z, axis=1)
+    tol = 1e-9 * np.abs(want).max()
+    yr, yi = row_dft_model(xr, xi, n2)
+    assert np.abs(yr + 1j * yi - want).max() < tol
+    yr, yi = row_dft_model(xr[:, :n2 // 2], None, n2, scale=0.5)
+    assert np.abs(yr + 1j * yi - np.fft.fft(0.5 * xr[:, :n2 // 2], n=n2,
+                                            axis=1)).max() < tol
+    inv = n2 * np.fft.ifft(z, axis=1)
+    yr, yi = row_dft_model(xr, xi, n2, inverse=True)
+    assert np.abs(yr + 1j * yi - inv).max() < tol
+    want3 = z
+    for it in range(3):
+        want3 = np.fft.fft(want3 * (1e-3 if it else 1.0), axis=1)
+    yr, yi = row_dft_model(xr, xi, n2, rep=3)
+    assert np.abs(yr + 1j * yi - want3).max() < 1e-9 * np.abs(want3).max()
+    got = row_dft_model(xr, xi, n2, inverse=True, mode=1)
+    assert np.abs(got - inv.real).max() < tol
+    acc = rng.standard_normal((2, n2, 128))
+    got = row_dft_model(xr, xi, n2, inverse=True, out_r=acc, mode=2)
+    assert np.abs(got - (acc + inv.real)).max() < tol
+    stages = (n2.bit_length() - 1) // 4
+    assert stages == {64: 1, 128: 1, 256: 2, 512: 2, 1024: 2}[n2]
+    # A fragment's four k-lanes read one lane's points n2/16 rows apart,
+    # one bank: 4 wavefronts a half-warp (a layout that spreads them
+    # measured slower on an H100; PERF.md, the K10a ablations).
+    S = _k10a_strip(n2)
+    _, reads = block_fft_flat(np.zeros((1, n2 * S), complex), _strided(S, 1),
+                              n2, S, 1.0, mma_stage)
+    lane = np.arange(32)
+    for r in reads[-stages:]:   # the tensor stages: warp w, tile j, c
+        for w in range(r.shape[0] // 32):
+            for j in range(4):
+                task = w * 32 + 8 * j + lane // 4
+                for c in range(4):
+                    assert _ways(r[task, lane % 4 + 4 * c]) == 4
+    macs = 2 * 4 * 3 * 16 * 8 * 8 / (8 * 16)   # k8 halves x parts x terms
+    assert macs == 192
+    assert n2 * _k10a_strip(n2) // 16 <= 256   # threads a block

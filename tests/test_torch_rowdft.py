@@ -9,8 +9,8 @@ returns natural order, so each comparison maps the tool's rows first, as
 the tool's own ``check`` does (:436-451).  Tolerances are the tool's:
 2e-4 of the maximum for transforms, 2e-3 for the chain, in float32.  The
 float64 twins are held against numpy's FFT at 1e-12, and a numpy
-emulation of TF32 rounding holds the 3xTF32 design of the tensor-core
-kernels.
+emulation of TF32 rounding holds the 3xTF32 design of K10a's radix-16
+products.
 """
 
 import importlib.util
@@ -214,41 +214,73 @@ def test_chain_on_four_planes_matches_tool_steps(tool):
     assert _rel(got, want) < rd.CHAIN_TOL
 
 
-def _fused_matrices(n2, inverse=False):
-    """The (8, G, G) fused matrices W'_p[m, g] = w^{g (8m + p) mod n2} as
-    the row kernel reads them from ``twiddle_table``."""
-    g = n2 // 8
-    tab = rd.twiddle_table(n2)
-    m = np.arange(g)[None, :, None]
-    e = (np.arange(g)[None, None, :] * (8 * m + np.arange(8)[:, None, None])
-         ) % n2
-    sgn = -1.0 if inverse else 1.0
-    return tab[e, 0], np.float32(sgn) * tab[e, 1]
+ROWDFT_CU = (Path(__file__).resolve().parents[1] / "pyaudiolocalization_tpu_torch"
+             / "csrc" / "rowdft.cu")
+
+
+def _kernel_w16(inverse=False):
+    """W16 (its conjugate for the inverse) as K10a builds it on the card,
+    W16^e = (kCos16[e], -kCos16[(e + 12) mod 16]) from the float32 table
+    ``kCos16`` in csrc/rowdft.cu, as a (16, 16) complex64 matrix W16^{mk}."""
+    text = ROWDFT_CU.read_text()
+    body = text[text.index("kCos16[16] = {"):]
+    body = body[body.index("{") + 1:body.index("}")]
+    cos = np.array([float(v.strip().rstrip("f")) for v in body.split(",")],
+                   np.float32)
+    assert cos.shape == (16,)
+    e = np.outer(np.arange(16), np.arange(16)) % 16
+    sgn = np.float32(-1.0 if inverse else 1.0)
+    return (cos[e] + 1j * (-sgn * cos[(e + 12) % 16])).astype(np.complex64)
+
+
+def _half_twiddles(n):
+    """``cuda_fft._twiddles(n)`` as complex64: exp(-2 pi i m / n), m < n/2,
+    the stage twiddles K10a, K10b and K10c read."""
+    tab = cf._twiddles(n, "cpu").numpy()
+    return (tab[:, 0] + 1j * tab[:, 1]).astype(np.complex64)
+
+
+def _from_half(tab, e):
+    """exp(-2 pi i e / n) from the half table (``sub_twiddle``)."""
+    half = tab.shape[0]
+    return np.where(e < half, tab[e % half], -tab[e % half])
 
 
 @pytest.mark.parametrize("n2", ALL_N2)
 def test_host_constants_match_tool(tool, n2):
-    """The kernels' table gives the tool's fused matrices, their inverse
-    (conjugate transposes, applied here as conjugates in the same
-    schedule), its long twiddle after the permutation and its lane DFT
-    matrix, to float32 rounding (both made in float64, by other
-    products)."""
-    wr, wi = _fused_matrices(n2)
-    twr, twi = tool._rowdft_consts(n2)
-    assert np.abs(wr - twr).max() < 2e-7 and np.abs(wi - twi).max() < 2e-7
-    vr, vi = _fused_matrices(n2, inverse=True)
-    ur, ui = tool._rowdft_inv_consts(n2)
-    assert np.abs(vr - np.swapaxes(ur, 1, 2)).max() < 2e-7
-    assert np.abs(vi - np.swapaxes(ui, 1, 2)).max() < 2e-7
+    """The constants the kernels read, against the tool's (both made in
+    float64, by other products, to float32 rounding): K10a's W16 and its
+    conjugate against the tool's lane matrix W_128 (W16^{mk} is
+    W_128^{8mk}) and its DFT-8 constants; the stage twiddles
+    ``_twiddles(n2)`` of K10a and K10b against the tool's butterfly stage
+    twiddles, and ``_twiddles(128)`` of K10c gathered into the tool's lane
+    matrix; the long twiddle against the tool's after its row order."""
+    *_, w1r, w1i = tool._bfly_consts(n2 * 128)
+    w1 = w1r + 1j * w1i
+    w16 = _kernel_w16()
+    eight = 8 * np.arange(16)
+    assert np.abs(w16 - w1[np.ix_(eight, np.arange(16))]).max() < 2e-7
+    assert np.abs(_kernel_w16(inverse=True) - np.conj(w16)).max() == 0
+    w8 = np.array([c + 1j * d for c, d in tool._W8])
+    assert np.abs(w16[1, ::2][:8] - w8).max() < 2e-7
+    tab = _half_twiddles(128)
+    e = np.outer(np.arange(128), np.arange(128)) % 128
+    assert np.abs(_from_half(tab, e) - w1).max() < 2e-7
+    # The tool's stage m (m = n2, n2/2, ..., 2) multiplies row q's second
+    # half-block entry j = q mod m - m/2 by W_m^j = W_n2^{j n2/m}.
+    mask, str_, sti, *_ = tool._bfly_consts(n2 * 128)
+    tab = _half_twiddles(n2)
+    q = np.arange(n2)
+    for stage, m in enumerate(2 ** np.arange(int(np.log2(n2)), 0, -1)):
+        j = q % m - m // 2
+        low = q % m < m // 2
+        want = str_[stage, :, 0] + 1j * sti[stage, :, 0]
+        got = np.where(low, 1.0, tab[np.where(low, 0, j) * (n2 // m)])
+        assert np.abs(got - want).max() < 2e-7
     lr, li = rd.long_twiddle(n2)
     pr, pi = tool._longtw_perm(n2 * 128)
     perm = tool._t_perm(n2)
     assert np.array_equal(lr[perm], pr) and np.array_equal(li[perm], pi)
-    *_, w1r, w1i = tool._bfly_consts(n2 * 128)
-    tab = rd.twiddle_table(128)
-    e = np.outer(np.arange(128), np.arange(128)) % 128
-    assert np.abs(tab[e, 0] - w1r).max() < 2e-7
-    assert np.abs(tab[e, 1] - w1i).max() < 2e-7
 
 
 # ---------------------------------------------------------------------------
@@ -373,7 +405,7 @@ def test_wrappers_raise(case):
 
 
 # ---------------------------------------------------------------------------
-# The 3xTF32 design of the tensor-core kernels, emulated
+# The 3xTF32 design of K10a's radix-16 products, emulated
 # ---------------------------------------------------------------------------
 
 def _tf32(a):
@@ -385,16 +417,14 @@ def _tf32(a):
 
 
 def _emulated_row_dft(x, n2, terms):
-    """K10a's schedule in numpy: the DFT-8 over the leading digit in
-    float32, then per digit the fused-matrix product with its operands in
-    TF32, ``terms`` of hi*hi, hi*lo, lo*hi summed (the kernel's
-    ``kTerms``: 3 is 3xTF32, 2 drops the matrix's lo, 1 is plain TF32),
-    rows t = 8m + p."""
-    g = n2 // 8
-    wr, wi = _fused_matrices(n2)
-    x3 = x.reshape(B, 8, g, 128)
-    w8 = np.exp(-2j * np.pi * np.arange(8) / 8).astype(np.complex64)
-    out = np.empty((B, n2, 128), np.complex128)
+    """K10a's schedule in numpy: ``block_fft``'s stages along the rows, the
+    radix-2, 4 or 8 first stage in float32, then each radix-16 stage's
+    inputs times the stage twiddle (from ``_twiddles(n2)``) in float32 and
+    the product with the kernel's W16 with its operands in TF32, ``terms``
+    of hi*hi, lo*hi, hi*lo summed (the kernel's ``kTerms``: 3 is 3xTF32,
+    2 drops the data's lo, 1 is plain TF32)."""
+    w16 = _kernel_w16()
+    tab = _half_twiddles(n2)
 
     def parts(a):
         hi = _tf32(a)
@@ -404,27 +434,45 @@ def _emulated_row_dft(x, n2, terms):
         (ah, al), (bh, bl) = parts(a), parts(b)
         y = np.matmul(ah, bh)
         if terms > 1:
-            y = y + np.matmul(ah, bl)
-        if terms > 2:
             y = y + np.matmul(al, bh)
+        if terms > 2:
+            y = y + np.matmul(ah, bl)
         return y
 
-    for p in range(8):
-        a = np.zeros((B, g, 128), np.complex64)
-        for b in range(8):
-            a = a + w8[(b * p) % 8] * x3[:, b]
-        yr = dot(wr[p], a.real) - dot(wi[p], a.imag)
-        yi = dot(wr[p], a.imag) + dot(wi[p], a.real)
-        out[:, p::8] = yr + 1j * yi
-    return out
+    cur = x.astype(np.complex64)
+    p = 1 << ((n2.bit_length() - 1) & 3)
+    if p > 1:   # point i + m q of butterfly i, out to i p + m
+        q = n2 // p
+        wp = np.exp(-2j * np.pi * np.outer(np.arange(p), np.arange(p)) / p)
+        v = cur.reshape(B, p, q, 128)
+        y = np.einsum("am,bmqc->bqac", wp.astype(np.complex64), v)
+        cur = y.reshape(B, n2, 128).astype(np.complex64)
+    while p < n2:
+        q = n2 // 16
+        i = np.arange(q)
+        k = i & (p - 1)
+        tw = _from_half(tab, np.outer(np.arange(16), k) * (n2 // (16 * p)))
+        v = (cur.reshape(B, 16, q, 128) * tw[None, :, :, None]).astype(
+            np.complex64)
+        vr = v.real.transpose(1, 0, 2, 3).reshape(16, -1)
+        vi = v.imag.transpose(1, 0, 2, 3).reshape(16, -1)
+        yr = dot(w16.real, vr) - dot(w16.imag, vi)
+        yi = dot(w16.real, vi) + dot(w16.imag, vr)
+        y = (yr + 1j * yi).astype(np.complex64).reshape(16, B, q, 128)
+        out = np.empty_like(cur)
+        for m in range(16):
+            out[:, (i - k) * 16 + k + m * p] = y[m]
+        cur = out
+        p *= 16
+    return cur
 
 
 @pytest.mark.parametrize("n2", [64, 1024])
 def test_three_tf32_split_meets_the_limit(n2):
     """Plain TF32 products miss float32 accuracy by orders of magnitude
     (>= 1e-4 of the maximum, near the tool's 2e-4 limit), and dropping one
-    of the three products misses the card checks' limit; the 3xTF32 split
-    keeps the row DFT within 1e-6."""
+    of the three products (the data's lo) misses the card checks' limit;
+    the 3xTF32 split keeps the row DFT within 1e-6."""
     rng = np.random.default_rng(n2)
     x = (rng.standard_normal((B, n2, 128))
          + 1j * rng.standard_normal((B, n2, 128))).astype(np.complex64)

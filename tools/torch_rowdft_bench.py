@@ -40,13 +40,20 @@ against its twin, by CUDA events and in device time by kernel.  ``gcc``
 reverberant sweep's, the multi-source cube's, an odd edge's and a
 passes shape (``GCC_SHAPES``) and K9 at the single pair's lengths and an
 edge (``CORR_SHAPES``), each held against its twin, by CUDA events and in
-device time by kernel, beside the twin's times (cuFFT).
+device time by kernel, beside the twin's times (cuFFT).  ``k10``
+(``--k10``, alone) times K10a (``row_dft``), K10b (``row_stages``) and
+K10c (``lane_dft``) at ``SHAPES``, with the full forward by both
+schedules and the chain (n2 >= 512), each held against its twin, beside
+``torch.fft.fft`` along the rows (dim 1), the lanes (dim 2) and of the
+flat row, by CUDA events and in device time by kernel with the device
+kernels a call runs, and prints the compiler's registers, stack frames
+and spills of the K10 kernels (``nvcc -Xptxas -v``).
 
 It imports numpy and torch only.  Run from the repository root on the
 machine with the card:
 
     python tools/torch_rowdft_bench.py [--reps 5] [--k4a | --boot | --k6 |
-                                        --scene | --gcc]
+                                        --scene | --gcc | --k10]
 
 ``chip_smoke.py`` runs it once as its phase 7 (``run``).  To A/B two
 versions of the package in one call, run this file from a copy of each
@@ -510,6 +517,97 @@ def gcc(reps: int = 5, log=print) -> dict:
     return out
 
 
+def k10(reps: int = 5, log=print) -> dict:
+    """K10a, K10b and K10c at ``SHAPES`` on complex planes, the full
+    forward of the real plane by both schedules and the chain on four
+    planes of their own (n2 >= ``CHAIN_MIN_N2``), each held against its
+    twin, beside the twins and ``torch.fft.fft`` along dims 1 and 2 and of
+    the flat row, and K10a's precision controls (2 and 1 TF32 products
+    a real product instead of 3, held to nothing: their time shows what
+    the products cost): CUDA-event ms per call (``time_ms``, median of
+    three loops) and device ms per call by kernel with the device kernels
+    a call runs (``device_ms``).  Logs one line per case and returns
+    {(case, n2, B): {"ms", "device", "err"}}."""
+    dev = torch.device("cuda")
+    tt, ct = rd.TRANSFORM_TOL, rd.CHAIN_TOL
+    out = {}
+    for n2, batch in SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(n2)
+        xr = torch.randn((batch, n2, rd.N1), generator=gen, device=dev)
+        xi = torch.randn((batch, n2, rd.N1), generator=gen, device=dev)
+        xc = torch.complex(xr, xi)
+        flat = xr.reshape(batch, -1)
+        # name -> (call, twin or None, tolerance)
+        cases = {
+            "row_dft": (lambda: rd.row_dft(xr, xi),
+                        lambda: rd.row_dft_plain(xr, xi), tt),
+            "row_stages": (lambda: rd.row_stages(xr, xi),
+                           lambda: rd.row_dft_plain(xr, xi), tt),
+            "lane_dft": (lambda: rd.lane_dft(xr, xi),
+                         lambda: rd.lane_dft_plain(xr, xi), tt),
+            "row_plain": (lambda: rd.row_dft_plain(xr, xi), None, None),
+            "lane_plain": (lambda: rd.lane_dft_plain(xr, xi), None, None),
+            "torch.fft.fft dim 1": (lambda: torch.fft.fft(xc, dim=1), None,
+                                    None),
+            "torch.fft.fft dim 2": (lambda: torch.fft.fft(xc, dim=2), None,
+                                    None),
+            # The precision controls: what the TF32 products cost.
+            "row_dft 2 products": (
+                lambda: rd._row_launch("row_dft", xr, xi, n2, False, 1, 1.0,
+                                       terms=2),
+                lambda: rd.row_dft_plain(xr, xi), 1.0),
+            "row_dft 1 product": (
+                lambda: rd._row_launch("row_dft", xr, xi, n2, False, 1, 1.0,
+                                       terms=1),
+                lambda: rd.row_dft_plain(xr, xi), 1.0),
+            "fwd_mxu": (lambda: rd.fft_four_step(xr, "mxu"),
+                        lambda: rd.fft_four_step_plain(xr), tt),
+            "fwd_stages": (lambda: rd.fft_four_step(xr, "stages"),
+                           lambda: rd.fft_four_step_plain(xr), tt),
+            "torch.fft.fft flat": (lambda: torch.fft.fft(flat), None, None),
+        }
+        if n2 >= CHAIN_MIN_N2:
+            x4 = torch.randn((4, batch, n2, rd.N1), generator=gen,
+                             device=dev)
+            for schedule in ("mxu", "stages"):
+                cases[f"chain_{schedule}"] = (
+                    lambda s=schedule: rd.chain(x4, s),
+                    lambda: rd.chain_plain(x4), ct)
+        for name, (call, twin, tol) in cases.items():
+            got, ms = time_ms(call, reps)
+            err = None
+            if twin is not None:
+                err, scale = check(f"{name} n2={n2} B={batch}", got, twin(),
+                                   tol)
+                err = err / scale
+            del got
+            res = {"ms": ms, "device": device_ms(call, 5), "err": err}
+            out[(name, n2, batch)] = res
+            log(f"K10 n2={n2:5d} B={batch:5d} {name}: {ms:.4f} ms; device "
+                f"{res['device']['total']:.4f} ms in "
+                f"{res['device']['kernels']:g} kernels a call "
+                f"({_split(res['device'])})"
+                + ("" if err is None else
+                   f"; max |kernel - plain| {err:.2e} of max"))
+        del cases
+        torch.cuda.empty_cache()
+    return out
+
+
+def ptxas_report(names=("row_dft_kernel", "row_fft_kernel",
+                        "lane_dft_kernel"), log=print) -> None:
+    """The compiler's lines (``nvcc -Xptxas -v``, ``cuda_fft.build``'s
+    ``ptxas.log``) for each kernel whose mangled name holds one of
+    ``names``: registers, stack frame, spill stores and loads."""
+    lines = (cf.BUILD_DIR / "ptxas.log").read_text().splitlines()
+    for i, text in enumerate(lines):
+        if "Compiling entry" in text and any(n in text for n in names):
+            log(f"ptxas {text.split(chr(39))[1]}: "
+                + "; ".join(t.strip().split(": ")[-1]
+                            for t in lines[i + 1:i + 5]
+                            if "stack frame" in t or "Used" in t))
+
+
 def host_steps(spec: torch.Tensor, log=print, calls: int = HOST_CALLS):
     """Host time per call (µs: ``time.perf_counter`` around ``calls``
     calls, synchronized at both ends) of each step of a wrapper's launch
@@ -573,6 +671,10 @@ def main() -> int:
     ap.add_argument("--gcc", action="store_true",
                     help="time only K1 and K9 at chip_smoke.py's shapes, "
                          "beside their cuFFT twins")
+    ap.add_argument("--k10", action="store_true",
+                    help="time only K10a, K10b and K10c, the full forward "
+                         "and the chain at the TPU tool's shapes, with "
+                         "device time by kernel and the compiler's report")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_rowdft_bench: needs an NVIDIA card", file=sys.stderr)
@@ -589,6 +691,10 @@ def main() -> int:
 
     if args.boot:
         boot(2 * args.reps, log)
+        return 0
+    if args.k10:
+        ptxas_report(log=log)
+        k10(args.reps, log)
         return 0
     if args.k6 or args.scene or args.gcc:
         if args.k6:
