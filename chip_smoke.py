@@ -2,7 +2,7 @@
 """Quickest proof that the PyTorch port runs on an NVIDIA GPU.
 
 Drives the port's main paths on ``cuda`` at full width (4 mics, 44.1 kHz,
-1 s, nfft 65,536), in seven phases:
+1 s, nfft 65,536), in eight phases:
 
 1. device report (``nvidia-smi`` name and power limit);
 2. build of the kernels from ``pyaudiolocalization_tpu_torch/csrc``;
@@ -11,13 +11,18 @@ Drives the port's main paths on ``cuda`` at full width (4 mics, 44.1 kHz,
    turns, the least time the card could take (``bound_ms``) and, where one
    PyTorch call computes the same function, that call's time (K4a also
    at no_gate's 131,072, the single pair's two rows and 1024 rows against
-   ``torch.fft.rfft``, with device times; K4b also at no_gate's 131,072
+   ``torch.fft.rfft``, with device times, and two rows of a 23.7 s
+   recording at 2^21 on the radix-2 passes, 23 device kernels a call;
+   K4b also at no_gate's 131,072
    and two rows, with its device time and kernels per call; K6 also at
    131,072, each shape equal to K4b on the same draws, with its device
    time and kernels per call, as K5, K3 and K2 at the sweep's and the
    api's shapes; K3, K2 and K5 also at an odd mic count on the split, K5
-   at the api's scene, each within 1e-6 of K3 then K2; K7 also on a view
-   that starts one bin in, with its device time and ``torch.sgn``'s; K1
+   at the api's scene, each within 1e-6 of K3 then K2, and K3, K2 and K5
+   across the scene chunks (21,846 scenes at nfft 512: two launches a
+   call, K5 bit-equal to K3 then K2); K7 also on a view that starts one
+   bin in and at a chunk of parity mode's bootstrap (256 x 44,100 bins),
+   with its device time and ``torch.sgn``'s; K1
    and K9 at every shape with their device time and the device kernels a
    call runs, held to their schedule: K1 3 on the split, 1 in one block,
    and 11 mics at 65,536 on the passes; K9 2 and 1, also at 131,072);
@@ -43,13 +48,17 @@ Drives the port's main paths on ``cuda`` at full width (4 mics, 44.1 kHz,
    SCOT + median + FIR + DBSCAN + robust LM; ``max_expected_delay=None``
    (K1 at 131,072) + adaptive + Wiener + calibration delays; and
    ``get_time_delays_phat`` at the exact length (K7) and at 65,536 (K4a +
-   K9) — these against ``tests/data/torch_options_golden.json``;
+   K9) — these against ``tests/data/torch_options_golden.json``; and both
+   nulls at nfft 2^21 (K4a with K4b or K6 on the radix-2 passes) against
+   their twins on the same draws;
 5. the batched Monte-Carlo sweep at ``bench.py``'s ``bench_full_sweep``
    spec on 512 scenes: the fused path (K5) against the split path (K3 with
    noise, then K2) per scene on the same draws, the hit rate and median
    error against the JAX sweep's, ``localize_batch`` on 256 numpy-built
    scenes against the JAX answers for the first 64, warm scenes/s, and a
-   stage breakdown;
+   stage breakdown; then 21,846 scenes at nfft 512, one past the grid
+   rows of one launch at 4 mics: fused (K5 twice) against split (K3 and
+   K2 twice each), equal to the bit;
 6. SRP and multi-source, against ``tests/data/torch_srp_golden.json``:
    ``localize_sound_source`` with ``solver='srp'`` and ``'srp+lm'`` on
    both scenes, cold and warm; the reverberant sweep of
@@ -67,7 +76,18 @@ Drives the port's main paths on ``cuda`` at full width (4 mics, 44.1 kHz,
    against ``torch.fft.fft`` and K4a (against ``torch.fft.rfft``), and the
    chain by both schedules, every kernel case held against its twin at
    every shape; n2 = 512 on 1024 planes (N = 65,536) gives K10's entries
-   of the ``kernels`` line.
+   of the ``kernels`` line;
+8. parity mode and the default demo, against
+   ``tests/data/torch_parity_golden.json`` (``parity_phase``):
+   ``run_calibration`` on the card; ``localize_sound_source`` in parity
+   mode (``lag_mode='reference'``: pre-sync, exact-length GCC and
+   bootstrap, calibration delays applied as given) with the JAX package's
+   calibration data, cold and warm, launching K7 and no other kernel; the
+   default demo's configuration (the physical lag axis with the pre-sync)
+   the same way; ``python -m pyaudiolocalization_tpu_torch --no-plots``
+   in-process.  Sync shifts, TDOAs where each pair's peak is clear of
+   its runner-up (a near-tie's flip is reported), the position (or the
+   DE cost) and ``significant`` away from the threshold.
 
 Every path runs with the launch counts set to 0 just before it and read
 just after; each must have launched its kernels.  Any failure raises, and
@@ -94,6 +114,7 @@ SLICE_GOLDEN = REPO / "tests" / "data" / "torch_slice_golden.json"
 SWEEP_GOLDEN = REPO / "tests" / "data" / "torch_sweep_golden.json"
 OPTIONS_GOLDEN = REPO / "tests" / "data" / "torch_options_golden.json"
 SRP_GOLDEN = REPO / "tests" / "data" / "torch_srp_golden.json"
+PARITY_GOLDEN = REPO / "tests" / "data" / "torch_parity_golden.json"
 FS = 44100.0
 NFFT = 65536
 N = 44100
@@ -117,7 +138,15 @@ NULL_DRAWS = 1000
 ADDED = {("delay_sum", "odd"): 1, ("gcc_windowed", "odd"): 1,
          ("noise_bootstrap_peaks", "no_gate"): 1, ("scene_windowed", "api"): 1,
          ("scene_windowed", "odd"): 1, ("gcc_all_pairs", "passes"): 2,
-         ("whitened_corr", "no_gate"): 2}
+         ("whitened_corr", "no_gate"): 2, ("fft_real", "long"): 3,
+         ("whiten", "boot"): 3, ("delay_sum", "chunks"): 3,
+         ("gcc_windowed", "chunks"): 3, ("scene_windowed", "chunks"): 3}
+# The sweep across K2's, K3's and K5's scene-chunk boundary: one scene past
+# the 65,535 grid rows of one launch at 4 mics (3 couples), at nfft 512.
+CHUNK_SCENES = 21846
+LONG_NFFT = 1 << 21       # above K4a's largest four-step split (2^20)
+LONG_SAMPLES = 1046019    # 23.7 s at 44.1 kHz: the api's nfft passes 2^20
+LONG_DRAWS = 64
 
 # name -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -304,7 +333,9 @@ def kernel_phase(cf, torch):
                       multi.num_samples, next_pow2(multi.total_samples),
                       False, False),
             "odd": (3, 3, 5, 7000, 6000, 8192, True, True),
-            "edge": (3, 3, 5, 3500, 3000, 4096, True, True)}.items():
+            "edge": (3, 3, 5, 3500, 3000, 4096, True, True),
+            "chunks": (CHUNK_SCENES, 4, 1, 448, 400, 512, True,
+                       True)}.items():
         draw("delay_sum", tag)
         base, tau, gains, snr, seeds, fade = scene_inputs(b, m, paths,
                                                           total, out)
@@ -324,6 +355,9 @@ def kernel_phase(cf, torch):
             log_device(f"delay_sum[{tag}]",
                        lambda: cf.delay_sum(base, tau, gains, nfft, out,
                                             fade, fin, *nz))
+        if tag == "chunks":
+            per_call(cf, "delay_sum", lambda: cf.delay_sum(
+                base, tau, gains, nfft, out, fade, fin, *nz), 2)
         if tag == "main":
             results["delay_sum"] = res
 
@@ -371,7 +405,8 @@ def kernel_phase(cf, torch):
             "main": (SWEEP_SCENES, 4, N, NFFT, 6),
             "api": (1, 4, N, NFFT, 21),
             "odd": (3, 3, 6000, 8192, 2),
-            "edge": (2, 3, 3000, 4096, 2)}.items():
+            "edge": (2, 3, 3000, 4096, 2),
+            "chunks": (CHUNK_SCENES, 4, 400, 512, 2)}.items():
         draw("gcc_windowed", tag)
         pi, pj = pairs(m)
         sig = randn(b, m, length).contiguous()
@@ -379,15 +414,20 @@ def kernel_phase(cf, torch):
         p = len(pi)
         nbytes = 4 * (b * m * length + nfft // 2 + 1
                       + b * p * (2 * wq * 128 + 3))
+        # "chunks": the largest float32 rounding over 131,076 rows of 512
+        # lags (the radix-2 passes; 1.6e-6 on the card) needs 2e-6.
         res = compare(
             f"gcc_windowed[{tag}] B={b} M={m} P={p} nfft={nfft} wq={wq}",
             lambda: cf.gcc_windowed(sig, pi, pj, nfft, wq, mask),
             lambda: cf.gcc_windowed_plain(sig, pi, pj, nfft, wq, mask),
-            tol=1e-6, reps=3 if b > 1 else 20,
+            tol=2e-6 if tag == "chunks" else 1e-6, reps=3 if b > 1 else 20,
             least=bound(nbytes, gcc_ops(b, m, p, nfft) + 3 * b * p * nfft))
         if tag in ("main", "api"):
             log_device(f"gcc_windowed[{tag}]",
                        lambda: cf.gcc_windowed(sig, pi, pj, nfft, wq, mask))
+        if tag == "chunks":
+            per_call(cf, "gcc_windowed", lambda: cf.gcc_windowed(
+                sig, pi, pj, nfft, wq, mask), 2)
         if tag == "main":
             results["gcc_windowed"] = res
 
@@ -396,10 +436,15 @@ def kernel_phase(cf, torch):
     # and an edge of one block; torch.fft.rfft is the library call.  The
     # device time per call (torch.profiler) is logged beside the CUDA-event
     # time, which a single row's host time between calls dominates.
+    # "long": the single pair's two rows of a 23.7 s recording at 2^21, on
+    # the radix-2 passes (the packing, 21 passes and the split: 23 device
+    # kernels a call).
     for tag, (rows_n, length, nfft) in {
             "main": (1, N, NFFT), "no_gate": (1, N, 2 * NFFT),
             "single_pair": (2, N, NFFT), "rows": (1024, NFFT, NFFT),
-            "edge": (1, 3000, 4096)}.items():
+            "edge": (1, 3000, 4096),
+            "long": (2, LONG_SAMPLES, LONG_NFFT)}.items():
+        draw("fft_real", tag)
         x = randn(rows_n, length).contiguous()
         res = compare(
             f"fft_real[{tag}] rows={rows_n} len={length} nfft={nfft}",
@@ -414,6 +459,9 @@ def kernel_phase(cf, torch):
             f"{device_ms(lambda: cf.fft_real(x, nfft))['total']:.4f} ms, "
             f"torch.fft.rfft "
             f"{device_ms(lambda: torch.fft.rfft(x, n=nfft))['total']:.4f} ms")
+        if tag == "long":
+            log_device(f"fft_real[{tag}]", lambda: cf.fft_real(x, nfft),
+                       kernels=2 + int(math.log2(nfft)))
         if tag == "main":
             results["fft_real"] = res
 
@@ -426,6 +474,7 @@ def kernel_phase(cf, torch):
                                         "no_gate": (1000, N, 2 * NFFT),
                                         "two": (2, N, NFFT),
                                         "edge": (999, 3000, 4096)}.items():
+        draw("bootstrap_peaks", tag)
         sig2 = randn(length)
         keys = rand(rows_n, length)
         rows = sig2[torch.argsort(keys, dim=-1)].contiguous()
@@ -480,8 +529,13 @@ def kernel_phase(cf, torch):
     # between two 16-byte words (a view one bin in).  16 bytes a bin.  The
     # device times per call of K7 and torch.sgn are logged beside the
     # CUDA-event times, which the host's time between calls dominates.
+    # "boot": a chunk of parity mode's exact-length bootstrap (BOOT_CHUNK
+    # rows of the 88,199-point transform's 44,100 bins).
+    from pyaudiolocalization_tpu_torch.models.tdoa import BOOT_CHUNK
     for tag, shape in {"main": (1, N), "edge": (3, 1025),
-                       "misaligned": (1, N + 1)}.items():
+                       "misaligned": (1, N + 1),
+                       "boot": (BOOT_CHUNK, N)}.items():
+        draw("whiten", tag)
         spec = torch.complex(randn(*shape), randn(*shape)).contiguous()
         if tag == "misaligned":
             spec = spec[..., 1:]
@@ -533,7 +587,8 @@ def kernel_phase(cf, torch):
             "main": (SWEEP_SCENES, 4, 1, 44356, N, NFFT, 6),
             "api": (1, 4, 22, 50292, N, NFFT, 21),
             "odd": (3, 3, 2, 7000, 6000, 8192, 2),
-            "edge": (2, 2, 2, 1024, 1024, 1024, 2)}.items():
+            "edge": (2, 2, 2, 1024, 1024, 1024, 2),
+            "chunks": (CHUNK_SCENES, 4, 1, 448, 400, 512, 2)}.items():
         draw("scene_windowed", tag)
         pi, pj = pairs(m)
         base, tau, gains, snr, seeds, fade = scene_inputs(b, m, paths,
@@ -563,6 +618,13 @@ def kernel_phase(cf, torch):
         if gap > 1e-6:
             raise AssertionError(f"scene_windowed[{tag}] departs from the "
                                  f"split kernels by {gap:.3e}")
+        if tag == "chunks":
+            if not all(torch.equal(a, c) for a, c in zip(fused, split)):
+                raise AssertionError("scene_windowed[chunks] is not bit-equal "
+                                     "to delay_sum -> gcc_windowed")
+            per_call(cf, "scene_windowed", lambda: cf.scene_windowed(
+                base, tau, gains, pi, pj, nfft, out, wq, fade, mask, snr,
+                seeds), 2)
         if tag in ("main", "api"):
             log_device(f"scene_windowed[{tag}]",
                        lambda: cf.scene_windowed(base, tau, gains, pi, pj,
@@ -574,6 +636,17 @@ def kernel_phase(cf, torch):
     rowdft_checks(torch)
     log(f"K10 checks of phase 3: {time.perf_counter() - start:.1f} s")
     return results
+
+
+def per_call(cf, name, fn, want):
+    """Raises unless one call of ``fn`` launches ``name`` ``want`` times
+    (a launch a scene chunk)."""
+    before = cf.LAUNCHES[name]
+    fn()
+    got = cf.LAUNCHES[name] - before
+    log(f"{name}: {got} launches a call")
+    if got != want:
+        raise AssertionError(f"{name}: {got} launches a call, want {want}")
 
 
 def traced(bench, fn, calls, want=None):
@@ -979,6 +1052,52 @@ def options_phase(cf, torch, slice_golden, options_golden, launches):
                 f"{nfft or 'exact'})", run, expect,
                 ("gcc_all_pairs",))
             _add(launches, counts)
+    long_null(cf, torch, tdoa, launches)
+
+
+def long_null(cf, torch, tdoa, launches):
+    """bootstrap_significance at nfft 2^21 (a 23.7 s pair at 44.1 kHz),
+    both nulls, on the radix-2 passes of K4a with K4b or K6: the
+    permutation rows are drawn once and go to the kernel path and to the
+    twins; the noise null's seeds are the ones its generator draws.  Held
+    within 1e-5 (peaks of float32 correlations at most 1)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    sig1 = torch.randn(LONG_SAMPLES, generator=gen, device=dev)
+    sig2 = torch.roll(sig1, 37) + torch.randn(LONG_SAMPLES, generator=gen,
+                                              device=dev)
+    rows = tdoa.permuted_rows(sig2, LONG_DRAWS, gen)
+    out = {}
+
+    def kernels():
+        out["permutation"] = float(tdoa.bootstrap_threshold(sig1, rows,
+                                                            LONG_NFFT))
+        out["noise"] = float(tdoa.bootstrap_significance(
+            sig1, sig2, torch.Generator(device=dev).manual_seed(9),
+            LONG_DRAWS, bootstrap_mode="noise", nfft=LONG_NFFT))
+
+    start = time.perf_counter()
+    _, counts = run_path(cf, "options path (nulls at nfft 2^21)", kernels,
+                         ("fft_real", "bootstrap_peaks",
+                          "noise_bootstrap_peaks"))
+    seconds = time.perf_counter() - start
+    _add(launches, counts)
+    s1 = cf.fft_real_plain(sig1[None], LONG_NFFT)[0]
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (LONG_DRAWS, 2),
+                          generator=torch.Generator(device=dev).manual_seed(9),
+                          dtype=torch.int32, device=dev)
+    want = {"permutation": cf.bootstrap_peaks_plain(s1, rows, LONG_NFFT),
+            "noise": cf.noise_bootstrap_peaks_plain(s1, seeds, LONG_SAMPLES,
+                                                    LONG_NFFT)}
+    for mode, peaks in want.items():
+        ref = float(torch.quantile(peaks, 0.95))
+        log(f"null at nfft {LONG_NFFT} ({mode}, {LONG_DRAWS} draws of "
+            f"{LONG_SAMPLES}): kernels {out[mode]:.6f}, twins {ref:.6f}, "
+            f"|diff| {abs(out[mode] - ref):.2e}")
+        if not abs(out[mode] - ref) < 1e-5:
+            raise AssertionError(f"the {mode} null at nfft {LONG_NFFT} "
+                                 "departs from its twins")
+    log(f"both nulls at nfft {LONG_NFFT}: {seconds:.3f} s wall (cold)")
 
 
 def _add(total, counts):
@@ -1124,6 +1243,46 @@ def sweep_phase(cf, torch, sweep_golden, launches):
     log(f"warm localize_batch: {BATCH_SCENES / batch_s:.1f} scenes/s "
         f"({batch_s:.3f} s for {BATCH_SCENES} scenes)")
     sweep_stages(torch, sw, spec)
+    chunk_sweep(cf, torch, sw, launches)
+
+
+def chunk_sweep(cf, torch, sw, launches):
+    """The sweep across the scene-chunk boundary: 21,846 scenes at 4 mics
+    and nfft 512 (one past the 65,535 grid rows of one launch), fused (K5
+    a chunk) against split (K3 then K2, a chunk each) on the same draws,
+    scene by scene to the bit."""
+    spec = sw.SweepSpec(fs=8000.0, duration=0.05)
+    if spec.nfft != 512 or not sw._mono_scene_eligible(spec):
+        raise AssertionError("the chunk sweep's spec misses the fused path")
+    runs = {}
+    for name, fused, expect, forbid in (
+            ("fused", True, ("scene_windowed",),
+             ("delay_sum", "gcc_windowed")),
+            ("split", False, ("delay_sum", "gcc_windowed"),
+             ("scene_windowed",))):
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        (res, seconds), counts = run_path(
+            cf, f"the sweep across the scene chunks ({name})",
+            lambda: _wall(torch, lambda: sw._run_scenes(
+                spec, gen, CHUNK_SCENES, torch.float32, fused)),
+            expect, forbid)
+        _add(launches, counts)
+        short = [k for k in expect if counts[k] < 2]
+        if short:
+            raise AssertionError(f"{short}: fewer than two launches over "
+                                 f"{CHUNK_SCENES} scenes")
+        runs[name] = res
+        log(f"sweep of {CHUNK_SCENES} scenes ({name}): {seconds:.3f} s "
+            f"wall, {CHUNK_SCENES / seconds:.1f} scenes/s")
+    fused, split = runs["fused"], runs["split"]
+    if not (torch.equal(fused.tdoas, split.tdoas)
+            and torch.equal(fused.estimate, split.estimate)):
+        raise AssertionError("fused and split sweeps across the scene "
+                             "chunks are not bit-equal")
+    if not bool(torch.isfinite(fused.estimate).all()):
+        raise AssertionError("non-finite estimates across the scene chunks")
+    log(f"fused equals split to the bit over {CHUNK_SCENES} scenes; hit rate "
+        f"{float((fused.error < 0.1).float().mean()):.4f}")
 
 
 # ---------------------------------------------------------------------------
@@ -1340,6 +1499,247 @@ def srp_phase(cf, torch, srp_golden, launches):
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: parity mode and the default demo
+# ---------------------------------------------------------------------------
+
+PARITY_FORBID = ("gcc_all_pairs", "delay_sum", "fft_real", "bootstrap_peaks",
+                 "gcc_windowed", "scene_windowed", "noise_bootstrap_peaks",
+                 "whitened_corr")
+DEMO_PATH = ("delay_sum", "gcc_all_pairs", "fft_real", "bootstrap_peaks")
+# A pair's chosen peak is "clear" of its runner-up above this relative
+# margin; below it a float32 run may pick the other peak of a near-tie.
+CLEAR_MARGIN = 1e-3
+
+
+def check_parity(name, res, shifts, golden, fs):
+    """One run against the golden case: sync shifts before rounding within
+    one step of the spline's fine grid (4/99 sample, plus float32's 2^-8)
+    and the same pads;
+    TDOAs equal in samples where the pair's margin is clear (a flip
+    elsewhere is reported, and must be the JAX package's float32 answer or
+    an unclear pair's); the position within 5 mm where every TDOA agrees
+    (the cost within 1 % where the JAX run fell back to DE);
+    'significant' where the peak is 10 % clear of the JAX threshold."""
+    want, want32 = golden["float64"], golden["float32"]
+    gap = max(abs(a - b) for a, b in zip(shifts, want["sync_shifts"]))
+    pads = [max(0, int(round(s - min(shifts)))) for s in shifts]
+    log(f"{name}: sync shifts {[round(s, 4) for s in shifts]} (golden "
+        f"{[round(s, 4) for s in want['sync_shifts']]}, max |diff| "
+        f"{gap:.4f} samples), pads {pads}")
+    # One step of the spline's fine grid (4/99 sample: signals equal to
+    # rounding refine their lag-0 peak to either side of 0) plus float32's
+    # resolution of a shift near 44,100 samples (2^-8).
+    if gap > 4.0 / 99 + 2.0 ** -8 or pads != want["sync_pads"]:
+        raise AssertionError(f"{name}: sync shifts {shifts} vs golden "
+                             f"{want['sync_shifts']}")
+    tdoas = [float(v) for v in res["tdoas"]]
+    agree = True
+    for k, (td, m) in enumerate(zip(tdoas, want["margins"])):
+        diff = abs(td - want["tdoas"][k]) * fs
+        if diff < 0.01:
+            continue
+        agree = False
+        alt = abs(td - want32["tdoas"][k]) * fs < 0.01
+        log(f"{name} pair {want['pairs'][k]}: TDOA {td * fs:.3f} samples vs "
+            f"golden {want['tdoas'][k] * fs:.3f} (float32 golden "
+            f"{want32['tdoas'][k] * fs:.3f}), peak margin {m:.2e}: a flip")
+        if m > CLEAR_MARGIN and not alt:
+            raise AssertionError(f"{name}: TDOA of pair {k} departs from the "
+                                 "golden where its peak is clear")
+    est = [float(v) for v in res["estimated_position"]]
+    pos_err = sum((a - b) ** 2 for a, b in
+                  zip(est, want["estimated_position"])) ** 0.5
+    log(f"{name}: position {[round(v, 5) for v in est]} (golden delta "
+        f"{pos_err:.2e} m), cost {float(res['cost']):.4e} (golden "
+        f"{want['cost']:.4e}), DE fallback {want['heuristic']}")
+    if not all(map(math.isfinite, est + tdoas)):
+        raise AssertionError(f"{name}: non-finite output")
+    if agree and want["heuristic"]:
+        if abs(float(res["cost"]) - want["cost"]) > 0.01 * max(
+                abs(want["cost"]), 1e-12):
+            raise AssertionError(f"{name}: DE cost departs from the golden")
+    elif agree and pos_err > 5e-3:
+        raise AssertionError(f"{name}: position {est} vs golden "
+                             f"{want['estimated_position']}")
+    elif not agree:
+        log(f"{name}: position not held (a TDOA flipped at a near-tie)")
+    pairs = sorted(res["correlation_metrics"])
+    for k, pair in enumerate(pairs):
+        peak, thr = want["peak"][k], want["threshold"][k]
+        got = res["correlation_metrics"][pair]["significant"]
+        if abs(peak - thr) > 0.1 * thr and got != want["significant"][k]:
+            raise AssertionError(f"{name} pair {pair}: significant {got} vs "
+                                 f"golden {want['significant'][k]}")
+
+
+def parity_stages(torch, calibration):
+    """Warm stage breakdown of one parity-mode call on the demo scene (the
+    second of two passes; each stage timed with a synchronize on both
+    sides): the calibration run, the exact 2N render, the pre-sync, the
+    front end, the exact-length GCC, the ladder, the six nulls (and their
+    permutation draws alone), the clustered LM."""
+    from pyaudiolocalization_tpu_torch import DEFAULT_CONFIG, api
+    from pyaudiolocalization_tpu_torch import run_calibration
+    from pyaudiolocalization_tpu_torch.models import simulator, sync, tdoa
+    from pyaudiolocalization_tpu_torch.ops import filters, gccphat
+    from pyaudiolocalization_tpu_torch.utils.config import SceneConfig
+    cfg = copy.deepcopy(DEFAULT_CONFIG)
+    cfg["localization"]["lag_mode"] = "reference"
+    scene = SceneConfig.from_dict(cfg)
+    loc = scene.localization
+    c = api.acoustics.speed_of_sound_host(scene.celsius, scene.humidity)
+    pi = [p[0] for p in scene.mic_pairs]
+    pj = [p[1] for p in scene.mic_pairs]
+    f32 = torch.float32
+    mics = torch.as_tensor(scene.mic_positions, dtype=f32, device="cuda")
+    calib = torch.as_tensor([d["delay"] for d in calibration], dtype=f32,
+                            device="cuda")
+    for _ in range(2):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        times = {}
+
+        def stage(name, fn):
+            out, seconds = _wall(torch, fn)
+            times[name] = seconds * 1e3
+            return out
+
+        stage("run_calibration", lambda: run_calibration(
+            cfg, dtype=f32, device="cuda"))
+        sigs = stage("simulate (exact 2N render)", lambda: (
+            simulator.simulate_signals(
+                scene.source_position, scene.mic_positions, scene.fs, c,
+                scene.duration, scene.signal_type, scene.freq,
+                scene.plane_coeffs, scene.plane_material_ids,
+                scene.materials.absorption, scene.materials.freq,
+                loc.max_reflections, loc.absorption_threshold,
+                generator=gen, dtype=f32, device="cuda")))
+        x = stage("pre-sync", lambda: torch.stack(
+            sync.synchronize_signals(list(sigs), scene.fs)))
+        n = x.shape[-1]
+        nfft = 2 * n - 1
+        filtered = stage("Butterworth", lambda: filters.noise_reduction(
+            x, scene.fs, method=loc.filter_method))
+        corr = stage("exact-length GCC (K7)", lambda: (
+            gccphat.gcc_phat_all_pairs(filtered, pi, pj, nfft=nfft)))
+        res = stage("reference ladder", lambda: tdoa.time_delays_from_corr(
+            corr, n, n, scene.fs, threshold_method="median",
+            max_expected_delay=loc.max_expected_delay, lag_mode="reference"))
+        stage(f"6 nulls x {NULL_DRAWS} (draws, exact transforms, K7)",
+              lambda: [tdoa.bootstrap_significance(
+                  filtered[i], filtered[j], gen, NULL_DRAWS, nfft=nfft)
+                  for i, j in zip(pi, pj)])
+        stage("  of which the permutation draws", lambda: [
+            tdoa.permuted_rows(filtered[j], NULL_DRAWS, gen) for j in pj])
+        td = api._calibrated(res.delays[..., 0], calib, pi, pj)
+        weights = tdoa.compute_weights(tdoa.correlation_snr(corr))
+        stage("k-means guesses + multi-start LM", lambda: api._solve(
+            mics, c, gen, pi, pj, td, weights, loc))
+    total = sum(v for k, v in times.items() if not k.startswith(" "))
+    for name, ms in times.items():
+        log(f"  parity stage {name}: {ms:.3f} ms ({100 * ms / total:.1f} %)")
+    log(f"  parity stages total: {total:.3f} ms (warm)")
+
+
+def parity_phase(cf, torch, parity_golden, launches):
+    """Parity mode and the default demo at full width (44.1 kHz x 1 s, 4
+    mics, 3 reflection orders, Butterworth, 1000 permutation draws a pair),
+    in a temporary working directory (parity mode draws its figure):
+
+    1. run_calibration on the card: one entry a mic, every SNR below the
+       gate (SURVEY.md Q2: the default materials leave the recordings
+       signal-free; the port's generator is not the JAX package's);
+    2. localize_sound_source in parity mode (lag_mode='reference') with
+       the JAX package's calibration data, cold and warm, on the demo scene
+       (a near-tie at every pair: the source is equidistant from the mics)
+       and an off-centre one (clear peaks): K7 only;
+    3. the default demo's configuration (the physical lag axis with the
+       reference pre-sync, calibration behind the SNR gate), cold and warm,
+       with the same calibration data;
+    4. ``python -m pyaudiolocalization_tpu_torch --no-plots`` in-process,
+       with the port's own calibration (which the gate sets aside, so its
+       answer is case 3's).
+    Each against tests/data/torch_parity_golden.json (``check_parity``)."""
+    import os
+    import tempfile
+    from pyaudiolocalization_tpu_torch import DEFAULT_CONFIG
+    from pyaudiolocalization_tpu_torch import __main__ as demo
+    from pyaudiolocalization_tpu_torch import localize_sound_source
+    from pyaudiolocalization_tpu_torch import run_calibration
+    from pyaudiolocalization_tpu_torch.models import sync
+    calibration = parity_golden["calibration_data"]
+    cwd = os.getcwd()
+    shifts_fn = sync._sync_shifts
+    seen = {}
+
+    def recorded_shifts(*args, **kw):
+        seen["shifts"] = [float(v) for v in shifts_fn(*args, **kw).tolist()]
+        return shifts_fn(*args, **kw)
+
+    os.chdir(tempfile.mkdtemp(prefix="chip_smoke_parity_"))
+    sync._sync_shifts = recorded_shifts
+    try:
+        (results, _sig, rec), counts = run_path(
+            cf, "run_calibration", lambda: run_calibration(
+                DEFAULT_CONFIG, dtype=torch.float32, device="cuda"), ())
+        snr = [r["snr"] for r in results]
+        log(f"run_calibration on the card: delays "
+            f"{[r['delay'] for r in results]}, snr {snr}")
+        if (len(results) != 4 or tuple(rec.shape) != (4, N)
+                or not all(s < 20.0 for s in snr)):
+            raise AssertionError("run_calibration: shapes or a signal above "
+                                 "the SNR gate (Q2 says noise only)")
+        for name, case in parity_golden["cases"].items():
+            parity = case["lag_mode"] == "reference"
+            expect, forbid = ((("whiten",), PARITY_FORBID) if parity
+                              else (DEMO_PATH, WINDOWED))
+            cfg = copy.deepcopy(DEFAULT_CONFIG)
+            cfg["localization"]["lag_mode"] = case["lag_mode"]
+            cfg["localization"]["visualize_correlation"] = False
+            cfg["source_position"] = case["source_position"]
+
+            def run():
+                for run_name in ("cold", "warm"):
+                    start = time.perf_counter()
+                    res = localize_sound_source(
+                        cfg, calibration_data=calibration, device="cuda",
+                        dtype=torch.float32, show_plots=False)
+                    torch.cuda.synchronize()
+                    seconds = time.perf_counter() - start
+                    log(f"{name} {run_name}: {seconds:.3f} s wall")
+                    check_parity(f"{name} {run_name}", res, seen["shifts"],
+                                 case, FS)
+
+            _, counts = run_path(cf, f"the {name} path", run, expect, forbid)
+            _add(launches, counts)
+        # The command-line demo, its result caught on its way out.
+        got = {}
+        api_fn = demo.localize_sound_source
+
+        def caught(*args, **kw):
+            got["res"] = api_fn(*args, **kw)
+            return got["res"]
+
+        demo.localize_sound_source = caught
+        try:
+            start = time.perf_counter()
+            _, counts = run_path(cf, "python -m pyaudiolocalization_tpu_torch"
+                                 " --no-plots", lambda: demo.main(
+                                     ["--no-plots"]), DEMO_PATH, WINDOWED)
+            seconds = time.perf_counter() - start
+        finally:
+            demo.localize_sound_source = api_fn
+        _add(launches, counts)
+        log(f"the command-line demo: {seconds:.3f} s wall (calibration "
+            f"included)")
+        check_parity("the command-line demo", got["res"], seen["shifts"],
+                     parity_golden["cases"]["demo"], FS)
+        parity_stages(torch, calibration)
+    finally:
+        sync._sync_shifts = shifts_fn
+        os.chdir(cwd)
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: K10's A/B bench
 # ---------------------------------------------------------------------------
 
@@ -1392,6 +1792,7 @@ def main() -> int:
     sweep_golden = json.loads(SWEEP_GOLDEN.read_text())
     options_golden = json.loads(OPTIONS_GOLDEN.read_text())
     srp_golden = json.loads(SRP_GOLDEN.read_text())
+    parity_golden = json.loads(PARITY_GOLDEN.read_text())
 
     # Phase 1: device.
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1412,7 +1813,7 @@ def main() -> int:
     # Phase 3: kernels against their plain versions.
     results = kernel_phase(cf, torch)
 
-    # Phases 4, 4b, 5, 6 and 7: the main paths, each with its own launch
+    # Phases 4, 4b, 5, 6, 7 and 8: the main paths, each with its own launch
     # counts.
     launches = {name: 0 for name in KERNELS}
     main_path_phase(cf, torch, slice_golden, sweep_golden, launches)
@@ -1420,6 +1821,7 @@ def main() -> int:
     sweep_phase(cf, torch, sweep_golden, launches)
     srp_phase(cf, torch, srp_golden, launches)
     results.update(rowdft_phase(cf, launches))
+    parity_phase(cf, torch, parity_golden, launches)
     log(f"launches over the main paths: {launches}")
     missing = [k for k in KERNELS if launches.get(k, 0) == 0]
     if missing:

@@ -3,8 +3,10 @@ pyaudiolocalization_tpu for NVIDIA Hopper.
 
 The package mirrors the JAX package's ``ops/ models/ utils/`` layout and
 function names; it imports torch and numpy and never jax.  Ported so far:
-the physical-mode localization path (``lag_mode='physical'``,
-``sync_mode='none'``) with its options (front ends, weightings, ladders,
+the reference's public API (``localize_sound_source``,
+``simulate_signals_with_multipath``, ``run_calibration``) in parity mode
+(the default demo: the reference lag axis, the pre-sync, calibration) and
+in physical mode with its options (front ends, weightings, ladders,
 bootstrap nulls, clustering, robust LM, the DE fallback, calibration
 delays) and the SRP-PHAT solvers ('srp', 'srp+lm'), its windowed fast
 path, and the batched Monte-Carlo sweep (``parallel/``: the 'lm', 'srp'
@@ -13,7 +15,11 @@ kernels (ops/cuda_fft.py).  Every other mode raises
 ``NotImplementedError``.
 """
 
-from .api import localize_sound_source  # noqa: F401
+from .api import (  # noqa: F401
+    localize_sound_source,
+    run_calibration,
+    simulate_signals_with_multipath,
+)
 from .utils.config import (  # noqa: F401
     CalibrationConfig, DEFAULT_CONFIG, LocalizationConfig, SceneConfig)
 from .utils.materials import (  # noqa: F401
@@ -23,6 +29,8 @@ __version__ = "0.1.0"
 
 __all__ = [
     "localize_sound_source",
+    "simulate_signals_with_multipath",
+    "run_calibration",
     "SceneConfig",
     "LocalizationConfig",
     "CalibrationConfig",

@@ -1,18 +1,28 @@
-"""Public API: ``localize_sound_source`` for the physical-mode path
-(counterpart of the JAX package's api.py; reference: main.py:126-333).
+"""Public API: the reference-compatible entry points
+``localize_sound_source`` and ``simulate_signals_with_multipath``, and
+``run_calibration`` re-exported from models/calibration (counterpart of the
+JAX package's api.py; reference: main.py:66-333).
 
-Ported: ``lag_mode='physical'`` with ``sync_mode='none'`` and its
-options — the Butterworth, FIR and Wiener front ends; PHAT (band-limited
-or not), SCOT, Roth and CC weightings; the 'gaussian', 'median' and
-'adaptive' TDOA ladders, with a ``max_expected_delay`` window or without
-one; the permutation, block, circular and noise bootstrap nulls
-(``analyze_correlation``); k-means or DBSCAN initial guesses; the
-multi-start LM, plain or robust ('lm-robust'), with the differential-
-evolution fallback; the SRP-PHAT grid solvers 'srp' and 'srp+lm'
-(models/srp.py); calibration delays behind their SNR gate; and the
-Gauss-Markov uncertainty.  Parity mode, the pre-sync,
-the narrowband solvers ('beam', 'music', 'capon'), audio files and plots
-raise ``NotImplementedError``.
+Ported: the reference pre-sync (``sync_mode='reference'``,
+models/sync.py; ``DEFAULT_CONFIG``'s, in either lag mode); parity mode
+(``lag_mode='reference'``): the reference's exact-length simulation
+(``simulate_signals``), the exact 2n - 1 transform, the reference lag axis
+with plateau peaks, the exact-length bootstrap, calibration delays applied
+verbatim (SURVEY.md Q3), DE with the reference's tol=0.01, and the
+localization figure; and physical mode (``lag_mode='physical'``,
+``LocalizationConfig``'s default) with its options — the Butterworth, FIR and
+Wiener front ends; PHAT (band-limited or not), SCOT, Roth and CC
+weightings; the 'gaussian', 'median' and 'adaptive' TDOA ladders, with a
+``max_expected_delay`` window or without one; the permutation, block,
+circular and noise bootstrap nulls (``analyze_correlation``); k-means or
+DBSCAN initial guesses; the multi-start LM, plain or robust ('lm-robust'),
+with the differential-evolution fallback; the SRP-PHAT grid solvers 'srp'
+and 'srp+lm' (models/srp.py); calibration delays behind their SNR gate;
+and the Gauss-Markov uncertainty.  Figures follow the JAX package's rules
+(utils/plotting.py, matplotlib imported lazily; without matplotlib and
+with ``show_plots=False`` one warning names it and no file is written).
+The narrowband solvers ('beam', 'music', 'capon') and audio files raise
+``NotImplementedError``.
 
 Two estimation cores, dispatched as the JAX package dispatches them
 (api.py:717-728 there): the windowed fast core (``_estimation_core_fast``:
@@ -33,7 +43,7 @@ CPU through their plain PyTorch twins.
 from __future__ import annotations
 
 import logging
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -43,14 +53,18 @@ from .models import solver as solver_ops
 from .models import srp as srp_ops
 from .models import tdoa as tdoa_ops
 from .models import uncertainty as uncertainty_ops
-from .models.simulator import simulate_signals_fast
+from .models.calibration import (  # noqa: F401 (run_calibration: re-export)
+    CALIBRATION_SNR_GATE, run_calibration)
+from .models.simulator import simulate_signals, simulate_signals_fast
+from .models.sync import synchronize_signals
 from .ops import cuda_fft
 from .ops import filters as filter_ops
 from .ops import gccphat
 from .ops.fftutils import fft_length
-from .models.calibration import CALIBRATION_SNR_GATE
+from .utils import plotting
 from .utils.config import LocalizationConfig, SceneConfig
 from .utils.device import resolve_device
+from .utils.materials import MaterialTable, default_table
 
 logger = logging.getLogger(__name__)
 
@@ -58,8 +72,47 @@ _LATER = "(not ported yet; a later slice of the PyTorch port brings it)"
 _SOLVERS = ("lm", "lm-robust", "srp", "srp+lm", "beam", "music", "capon")
 
 
+def simulate_signals_with_multipath(source_pos, mic_positions, fs, c,
+                                    duration: float = 1.0,
+                                    signal_type: str = "sine",
+                                    freq: float = 1000.0,
+                                    reflective_planes=None,
+                                    material_properties: Optional[
+                                        Mapping] = None,
+                                    max_reflections: int = 2,
+                                    absorption_threshold: float = 0.01,
+                                    trim_to_duration: bool = True,
+                                    generator: Optional[
+                                        torch.Generator] = None,
+                                    dtype=None,
+                                    absorption_mode: str = "carrier",
+                                    device=None) -> List[np.ndarray]:
+    """Reference-signature wrapper (main.py:66-79; api.py:70-115 of the JAX
+    package): the reference's exact-length scene simulation
+    (``models/simulator.simulate_signals``) as a list of per-mic numpy
+    arrays.  ``generator`` drives the stochastic signal types (default: a
+    generator seeded 0, as the JAX package defaults to PRNGKey(0));
+    ``device`` as ``localize_sound_source``'s."""
+    table = (MaterialTable.from_dict(material_properties)
+             if material_properties is not None else default_table())
+    planes = reflective_planes or []
+    coeffs = (np.array([pl["plane"] for pl in planes], float).reshape(
+        len(planes), 4) if planes else np.zeros((0, 4)))
+    mat_ids = np.array([table.id_of(pl.get("material", "air"), strict=True)
+                        for pl in planes], np.int32)
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    sigs = simulate_signals(
+        source_pos, mic_positions, fs, c, duration, signal_type, freq,
+        coeffs, mat_ids, table.absorption, table.freq, max_reflections,
+        absorption_threshold, trim_to_duration, generator=generator,
+        dtype=dtype, device=dev, absorption_mode=absorption_mode)
+    return [s.cpu().numpy() for s in sigs]
+
+
 def _check_supported(loc: LocalizationConfig, use_simulation: bool,
-                     signals, show_plots: bool) -> None:
+                     signals) -> None:
     """The JAX package's ValueErrors (api.py:549-565 there), then
     NotImplementedError for every mode the port does not run yet."""
     if loc.solver not in _SOLVERS:
@@ -80,15 +133,10 @@ def _check_supported(loc: LocalizationConfig, use_simulation: bool,
             "gcc_weighting is a physical-mode extension; reference-parity "
             "mode keeps PHAT (utils.py:116)")
     unsupported = [
-        (loc.lag_mode != "physical",
-         f"lag_mode={loc.lag_mode!r}: reference-parity mode {_LATER}"),
-        (loc.sync_mode != "none",
-         f"sync_mode={loc.sync_mode!r}: the reference pre-sync {_LATER}"),
         (loc.solver in ("beam", "music", "capon"),
          f"solver={loc.solver!r} {_LATER}"),
         (not use_simulation and signals is None,
          f"use_simulation=False (audio files) {_LATER}"),
-        (show_plots, f"show_plots=True: plotting {_LATER}"),
     ]
     for bad, message in unsupported:
         if bad:
@@ -225,8 +273,10 @@ def _estimation_core(signals: torch.Tensor, mic_positions: torch.Tensor,
         corr, n, n, fs, num_peaks=1, threshold_method=_resolve_threshold(loc),
         max_expected_delay=loc.max_expected_delay, lag_mode=loc.lag_mode)
     measured = res.delays[..., 0]
-    # Physical convention: td = arrival_j - arrival_i = -(peak lag)/fs.
-    td = _calibrated(-measured, calib, pairs_i, pairs_j)
+    # Physical convention: td = arrival_j - arrival_i = -(peak lag)/fs;
+    # parity mode takes the reference's peak lag as it is.
+    td = _calibrated(-measured if loc.lag_mode == "physical" else measured,
+                     calib, pairs_i, pairs_j)
 
     peak_corr = torch.amax(corr, -1)
     corr_matrix = torch.zeros((num_mics, num_mics), dtype=corr.dtype,
@@ -347,11 +397,12 @@ def _estimation_core_fast(signals: torch.Tensor, mic_positions: torch.Tensor,
 
 
 def _de_fallback(core, mic_positions: torch.Tensor, c: float,
-                 generator: Optional[torch.Generator], pairs_i,
-                 pairs_j) -> np.ndarray:
+                 generator: Optional[torch.Generator], pairs_i, pairs_j,
+                 tol: float) -> np.ndarray:
     """Differential evolution over the LM bounds with an L-BFGS-B polish
-    (main.py:276-298; physical mode's tol=1e-6), used when the LM returned
-    no finite cost; the first initial guess when DE fails too."""
+    (main.py:276-298; ``tol`` 0.01 in parity mode, the reference's scipy
+    default, 1e-6 in physical mode), used when the LM returned no finite
+    cost; the first initial guess when DE fails too."""
     logger.warning("Least-squares failed, trying differential evolution.")
     td, weights = core["tdoas"], core["weights"]
     lower, upper = core["lower"], core["upper"]
@@ -366,7 +417,7 @@ def _de_fallback(core, mic_positions: torch.Tensor, c: float,
         return res.x, res.fun
 
     de = solver_ops.differential_evolution(objective, lower, upper,
-                                           generator, tol=1e-6,
+                                           generator, tol=tol,
                                            polish_fn=polish)
     if np.isfinite(float(de.energy)):
         estimated = de.x.double().cpu().numpy()
@@ -376,6 +427,35 @@ def _de_fallback(core, mic_positions: torch.Tensor, c: float,
     logger.error("Differential evolution failed. Falling back to the first "
                  "initial guess.")
     return core["initial_guesses"][0].double().cpu().numpy()
+
+
+def _figures(scene: SceneConfig, loc: LocalizationConfig, estimated,
+             core, pairs, fs: float, show_plots: bool) -> None:
+    """The JAX package's figures (utils/plotting.py): the localization
+    scatter, and with ``visualize_correlation`` the peak-correlation
+    heatmap and the correlations in 3-D.  Matplotlib is optional: without
+    it ``show_plots=True`` raises ImportError, and otherwise one warning
+    says that no figure is written."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        if show_plots:
+            raise
+        logger.warning("matplotlib is not installed: the figures "
+                       "(localization_result.png%s) are not written.",
+                       ", heatmap.png, correlation_3d.png"
+                       if loc.visualize_correlation else "")
+        return
+    plotting.plot_localization_3d(scene.mic_positions, scene.source_position,
+                                  estimated, show_plot=show_plots)
+    if loc.visualize_correlation:
+        plotting.plot_correlation_heatmap(
+            core["correlation_matrix"].double().cpu().numpy(),
+            scene.mic_positions, show_plot=show_plots,
+            save_path="heatmap.png")
+        plotting.plot_correlation_3d(
+            list(core["corr"].double().cpu().numpy()), list(pairs), fs,
+            show_plot=show_plots, save_path="correlation_3d.png")
 
 
 def localize_sound_source(config,
@@ -398,14 +478,18 @@ def localize_sound_source(config,
     ``generator`` (a ``torch.Generator`` on ``device``) drives every random
     draw — noise sources, bootstrap permutations, k-means seeding; by
     default one is seeded from the scene's ``seed``.  ``signals`` injects
-    per-mic waveforms in place of the simulation.  Figures are not ported:
-    ``show_plots`` must stay False, and ``visualize_correlation`` only adds
-    the correlation matrix to the result.
+    per-mic waveforms in place of the simulation.  Figures as in the JAX
+    package: parity mode always draws the localization figure (shown with
+    ``show_plots``, else saved to ``localization_result.png`` in the
+    working directory), as does any simulated run with ``show_plots`` or
+    ``visualize_correlation``, which also saves ``heatmap.png`` and
+    ``correlation_3d.png``.  Without matplotlib, ``show_plots=True`` raises
+    ImportError and otherwise one warning replaces the files.
     """
     scene = (config if isinstance(config, SceneConfig)
              else SceneConfig.from_dict(config))
     loc = scene.localization
-    _check_supported(loc, use_simulation, signals, show_plots)
+    _check_supported(loc, use_simulation, signals)
     dev = resolve_device(device)
     dt = dtype if dtype is not None else torch.get_default_dtype()
     if generator is None:
@@ -416,28 +500,50 @@ def localize_sound_source(config,
     c = acoustics.speed_of_sound_host(scene.celsius, scene.humidity)
     logger.info("Computed speed of sound: %.2f m/s", c)
 
+    rows = None
     if signals is not None:
         if len(signals) != num_mics:
             raise ValueError("The number of injected signals must match the "
                              "number of microphones.")
         rows = [torch.tensor(np.asarray(s), dtype=dt, device=dev)
                 for s in signals]
-        max_len = max(int(r.shape[-1]) for r in rows)
-        sigs = torch.stack([torch.nn.functional.pad(r, (0, max_len - r.shape[-1]))
-                            for r in rows])
         logger.info("Using injected signals.")
     else:
         if scene.source_position is None:
             raise ValueError(
                 "source_position must be provided when use_simulation=True.")
-        sigs = simulate_signals_fast(
-            scene.source_position, mic_positions, fs, c, scene.duration,
-            scene.signal_type, scene.freq, scene.plane_coeffs,
-            scene.plane_material_ids, scene.materials.absorption,
-            scene.materials.freq, loc.max_reflections,
-            loc.absorption_threshold, generator=generator, dtype=dt,
-            device=dev, absorption_mode=scene.absorption_mode)
+        if loc.lag_mode == "physical":
+            sigs = simulate_signals_fast(
+                scene.source_position, mic_positions, fs, c, scene.duration,
+                scene.signal_type, scene.freq, scene.plane_coeffs,
+                scene.plane_material_ids, scene.materials.absorption,
+                scene.materials.freq, loc.max_reflections,
+                loc.absorption_threshold, generator=generator, dtype=dt,
+                device=dev, absorption_mode=scene.absorption_mode)
+        else:
+            if scene.absorption_mode != "carrier":
+                raise ValueError(
+                    "absorption_mode is a physical-mode simulation "
+                    "extension; reference-parity mode keeps the carrier-"
+                    "frequency attenuation law (utils.py:50-65)")
+            # The reference's concrete padding rule and exact 2N render.
+            sigs = simulate_signals(
+                scene.source_position, mic_positions, fs, c, scene.duration,
+                scene.signal_type, scene.freq, scene.plane_coeffs,
+                scene.plane_material_ids, scene.materials.absorption,
+                scene.materials.freq, loc.max_reflections,
+                loc.absorption_threshold, trim_to_duration=True,
+                generator=generator, dtype=dt, device=dev)
         logger.info("Simulated signals generated.")
+    if loc.sync_mode == "reference":
+        rows = synchronize_signals(list(sigs) if rows is None else rows, fs)
+        logger.info("Signals synchronized.")
+    if rows is not None:
+        # Equal lengths: the trailing zero-pad of the reference's
+        # pad-align (utils.py:448-456).
+        max_len = max(int(r.shape[-1]) for r in rows)
+        sigs = torch.stack([torch.nn.functional.pad(
+            r, (0, max_len - r.shape[-1])) for r in rows])
 
     pairs = scene.mic_pairs
     pairs_i = tuple(p[0] for p in pairs)
@@ -449,7 +555,12 @@ def localize_sound_source(config,
         _, _, pool, max_lag = srp_knobs
         # SRP reads lags up to the diameter bound plus the pool width.
         srp_lags = max_lag + pool + 3
-    nfft = _physical_nfft(n, fs, loc.max_expected_delay, srp_lags)
+    if loc.lag_mode == "reference":
+        # The reference's exact length n1 + n2 - 1: never a power of two,
+        # so the GCC and the bootstrap take their exact-length routes (K7).
+        nfft = fft_length(n, n, "exact")
+    else:
+        nfft = _physical_nfft(n, fs, loc.max_expected_delay, srp_lags)
     mics_t = torch.as_tensor(mic_positions, dtype=dt, device=dev)
     calib = _calibration_delays(calibration_data, num_mics, loc.lag_mode)
     calib_t = (None if calib is None
@@ -471,13 +582,19 @@ def localize_sound_source(config,
     for (i, j), td in zip(pairs, td_np):
         logger.info("Time difference for mic pair %d-%d: %.6f s", i + 1,
                     j + 1, td)
+        logger.info("Distance difference for mic pair %d-%d: %.3f m", i + 1,
+                    j + 1, c * td)
     # The DE fallback serves the LM solvers only: the SRP cost is a finite
     # steered power by construction (api.py:774-778 of the JAX package).
     fallback_used = (not np.isfinite(cost)
                      and loc.solver in ("lm", "lm-robust"))
     if fallback_used:
+        # Parity mode keeps the reference's scipy default tol=0.01
+        # (main.py:281-292); physical mode the tighter 1e-6.
         estimated = _de_fallback(core, mics_t, c, generator, pairs_i,
-                                 pairs_j)
+                                 pairs_j,
+                                 0.01 if loc.lag_mode == "reference" else
+                                 1e-6)
     else:
         logger.info("Estimated source: (%.3f, %.3f, %.3f) m", *estimated)
 
@@ -508,6 +625,16 @@ def localize_sound_source(config,
                      "significant": bool(sig_np[k])}
             for k, (i, j) in enumerate(pairs)
         }
+        for pair, metrics in correlation_metrics.items():
+            logger.info("Cross-correlation metrics for mic pair %d-%d: %s",
+                        pair[0] + 1, pair[1] + 1, metrics)
+
+    # The reference plots the 3-D scatter on every simulated run
+    # (main.py:300-315), so parity mode always draws it; physical mode
+    # only when asked to (api.py:877-887 of the JAX package).
+    if use_simulation and (show_plots or loc.visualize_correlation
+                           or loc.lag_mode == "reference"):
+        _figures(scene, loc, estimated, core, pairs, fs, show_plots)
 
     return {
         "estimated_position": estimated,

@@ -465,6 +465,26 @@ fft_real_rows(const float2* __restrict__ y, int rows, int n1, int n2,
   }
 }
 
+// K4a above 2^20 (n1 = 0), after the radix-2 passes: packed natural-order
+// rows z (ceil(rows/2), n) -> the two real spectra, bins 0..n/2 of rows
+// 2c and 2c+1 of out (rows, n/2 + 1).  The split's bound holds: one read
+// of the packed row and one write of each spectrum.
+__global__ void split_spectra(const float2* __restrict__ z, int rows, int n,
+                              float2* __restrict__ out) {
+  const int c = blockIdx.y;
+  const int bins = (n >> 1) + 1;
+  const bool two = 2 * c + 1 < rows;
+  const float2* row = z + (size_t)c * (size_t)n;
+  float2* oa = out + (size_t)(2 * c) * (size_t)bins;
+  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < bins;
+       k += gridDim.x * blockDim.x) {
+    const float2 zk = row[k];
+    const float2 zm = row[(n - k) & (n - 1)];
+    oa[k] = split_bin(zk, zm, 0);
+    if (two) oa[bins + k] = split_bin(zk, zm, 1);
+  }
+}
+
 // Pass 2 with S = s2 (16, 32 or 64).
 int fft_real_rows_launch(const float2* y, int rows, int n1, int n2, int s2,
                          const float2* tw, float2* out, cudaStream_t s) {
@@ -1952,14 +1972,28 @@ void boot_stage(const float2* s1, int rows, int n, float eps, int done,
 extern "C" {
 
 // K4a: x (rows, len) -> out (rows, n/2+1) complex, natural order.  n1 = 1:
-// one block per packed row (n <= 4096); else the two passes of the
-// four-step split n = n1 * n2 through buf (ceil(rows/2), n) complex, pass
-// 2 with strips of s2 (16, 32 or 64) rows.
+// one block per packed row (n <= 4096); n1 = 0 (n > 2^20): the packed
+// rows, log2(n) radix-2 passes through buf's two halves of ceil(rows/2)
+// rows each, and `split_spectra`; else the two passes of the four-step
+// split n = n1 * n2 through buf (ceil(rows/2), n) complex, pass 2 with
+// strips of s2 (16, 32 or 64) rows.
 int palt_fft_real(const float* x, int rows, int len, int n, int n1, int s2,
                   const float2* tw, float2* buf, float2* out, void* stream) {
   using palt::fft_threads;
   cudaStream_t s = (cudaStream_t)stream;
   const int packed = (rows + 1) / 2;
+  if (n1 == 0) {
+    pack_rows<<<dim3(palt::pass_blocks(n), packed), kThreads, 0, s>>>(
+        x, rows, len, len, n, buf);
+    PALT_CHECK();
+    const float2* spec = fft_rows(buf, buf + (size_t)packed * n, tw, n,
+                                  packed, 0, log2_int(n), s);
+    PALT_CHECK();
+    split_spectra<<<dim3(bin_blocks(n), packed), kThreads, 0, s>>>(
+        spec, rows, n, out);
+    PALT_CHECK();
+    return 0;
+  }
   if (n1 == 1) {
     const int smem = (n / 2 + n) * (int)sizeof(float2);
     const cudaError_t err = palt::allow_smem<fft_real_block>();

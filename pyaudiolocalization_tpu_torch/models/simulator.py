@@ -4,8 +4,11 @@ models/simulator.py; reference: main.py:66-124).
 Ported: the physical-mode path, ``simulate_signals_fast``, which renders at
 a static power-of-two length from a host-side delay budget through
 ``render_scene(pad_mode="pow2")`` and kernel K3 (ops/cuda_fft.delay_sum),
-with in-render measurement noise and a leading scene axis for the sweep.
-The reference-parity ``simulate_signals``, per-bin absorption and the
+with in-render measurement noise and a leading scene axis for the sweep;
+and the reference-parity ``simulate_signals``, with the reference's
+data-dependent padding rule and the exact 2N render
+(``render_scene(pad_mode="exact")``, plain PyTorch as the JAX package's
+XLA path: no TPU kernel took that length).  Per-bin absorption and the
 moving-source render belong to later slices.
 """
 
@@ -17,8 +20,9 @@ import numpy as np
 import torch
 
 from ..ops import cuda_fft
+from ..ops import noise as noise_ops
 from ..ops import signal as sig_ops
-from ..ops.delay import fade_window
+from ..ops.delay import delay_and_sum, fade_window
 from ..ops.fftutils import next_pow2
 from . import acoustics
 
@@ -80,22 +84,34 @@ def render_scene(base_signal: torch.Tensor, paths_delays: torch.Tensor,
                  snr_db: Optional[torch.Tensor] = None,
                  noise_seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Render (..., M, out_samples) mic signals: pad base (..., N) to
-    total_samples (main.py:102-103), delay-and-sum all paths circularly at
-    next_pow2(total_samples), fade, trim (main.py:119-120), and normalize +
-    compress per mic (main.py:121-122) — all in kernel K3.  ``snr_db``
-    ((...,) dB) with ``noise_seeds`` ((..., 2) int32) adds white
-    measurement noise at that per-mic SNR after finalization, drawn from
-    the seeds' Philox streams (ops/noise.py)."""
-    if pad_mode != "pow2":
-        raise NotImplementedError(
-            f"render_scene pad_mode={pad_mode!r} is not ported yet (the "
-            "exact-length render belongs to the parity-mode slice)")
+    total_samples (main.py:102-103), delay-and-sum all paths, fade, trim
+    (main.py:119-120), and normalize + compress per mic (main.py:121-122).
+    ``pad_mode='pow2'``: circularly at next_pow2(total_samples), all in
+    kernel K3; 'exact': at the reference's 2 * total_samples
+    (``ops/delay.delay_and_sum``, plain PyTorch).  ``snr_db`` ((...,) dB)
+    with ``noise_seeds`` ((..., 2) int32) adds white measurement noise at
+    that per-mic SNR after finalization, drawn from the seeds' Philox
+    streams (ops/noise.py)."""
+    if pad_mode not in ("pow2", "exact"):
+        raise ValueError(f"render_scene pad_mode must be 'pow2' or "
+                         f"'exact', got {pad_mode!r}")
     if snr_db is not None and noise_seeds is None:
         raise ValueError("snr_db requires noise_seeds")
     dt, dev = base_signal.dtype, base_signal.device
     lead = base_signal.shape[:-1]
     padded = torch.zeros(lead + (total_samples,), dtype=dt, device=dev)
     padded[..., :base_signal.shape[-1]] = base_signal
+    if pad_mode == "exact":
+        sigs = delay_and_sum(padded, paths_delays, paths_gains, fs,
+                             pad_mode="exact")[..., :out_samples]
+        if finalize:
+            sigs = sig_ops.dynamic_range_compression(
+                sig_ops.normalize_signal(sigs))
+        if snr_db is not None:
+            sigs = noise_ops.add_noise(
+                sigs, torch.as_tensor(snr_db, dtype=dt, device=dev),
+                noise_seeds)
+        return sigs
     fade = fade_window(total_samples, dtype=dt, device=dev)[:out_samples]
     tau = (paths_delays * fs).to(dt).contiguous()
     if snr_db is not None:
@@ -124,21 +140,13 @@ def static_delay_budget(source_pos, mic_positions, plane_coeffs,
     return (diam + max_reflections * reach) / 300.0 + 1.0 / fs
 
 
-def simulate_signals_fast(source_pos, mic_positions, fs: float, c: float,
-                          duration: float, signal_type: str, freq: float,
-                          plane_coeffs, plane_material_ids, absorption_table,
-                          freq_table, max_reflections: int,
-                          absorption_threshold: float,
-                          generator: Optional[torch.Generator] = None,
-                          dtype=None, device=None,
-                          absorption_mode: str = "carrier") -> torch.Tensor:
-    """Physical-mode scene simulation -> (M, int(duration*fs)): the
-    geometry and paths of the reference, rendered at a static power-of-two
-    length from a conservative host-side delay budget."""
-    if absorption_mode != "carrier":
-        raise NotImplementedError(
-            "absorption_mode='per-bin' is not ported yet (later slice)")
-    dt = dtype if dtype is not None else torch.get_default_dtype()
+def _scene_geometry(source_pos, mic_positions, c, freq, plane_coeffs,
+                    plane_material_ids, absorption_table, freq_table,
+                    max_reflections: int, absorption_threshold: float, dt,
+                    device):
+    """Image sources and the direct + image path delays and gains of one
+    scene (main.py:93-118), as tensors of ``dt`` on ``device``.  Returns
+    (paths, the images' acceptance mask (I,))."""
 
     def put(a, kind=dt):
         return torch.as_tensor(np.asarray(a), dtype=kind, device=device)
@@ -156,9 +164,82 @@ def simulate_signals_fast(source_pos, mic_positions, fs: float, c: float,
         absorption_threshold)
     paths = scene_paths(source, mics, put(c), freq_t, images,
                         put(absorption_table), put(freq_table))
-    base = sig_ops.generate_signal(signal_type, fs, duration, freq_t,
-                                   generator=generator, dtype=dt,
-                                   device=device)
+    return paths, images.accepted
+
+
+def simulate_signals(source_pos, mic_positions, fs: float, c: float,
+                     duration: float = 1.0, signal_type: str = "sine",
+                     freq: float = 1000.0, plane_coeffs=None,
+                     plane_material_ids=None, absorption_table=None,
+                     freq_table=None, max_reflections: int = 2,
+                     absorption_threshold: float = 0.01,
+                     trim_to_duration: bool = True,
+                     generator: Optional[torch.Generator] = None,
+                     dtype=None, device=None,
+                     absorption_mode: str = "carrier") -> torch.Tensor:
+    """Reference-parity scene simulation -> (M, samples) (the JAX
+    package's ``simulate_signals``, models/simulator.py:268-340 there):
+    the reference's concrete padding rule total = int((duration +
+    max_delay) * fs), max_delay over the direct paths and the accepted
+    image sources (main.py:93-103, one scalar read on the host), the exact
+    2N render, trimmed to int(duration * fs) samples unless
+    ``trim_to_duration`` is False.  The stochastic signal types draw from
+    ``generator``."""
+    if absorption_mode not in ("carrier", "per-bin"):
+        raise ValueError("absorption_mode must be 'carrier' or 'per-bin'")
+    if absorption_mode == "per-bin":
+        raise NotImplementedError(
+            "absorption_mode='per-bin' is not ported yet (later slice)")
+    dt = dtype if dtype is not None else torch.get_default_dtype()
+    if absorption_table is None:
+        from ..utils.materials import default_table
+        table = default_table()
+        absorption_table, freq_table = table.absorption, table.freq
+    paths, accepted = _scene_geometry(
+        source_pos, mic_positions, c, freq, plane_coeffs, plane_material_ids,
+        absorption_table, freq_table, max_reflections, absorption_threshold,
+        dt, device)
+    base = sig_ops.generate_signal(
+        signal_type, fs, duration,
+        torch.as_tensor(freq, dtype=dt, device=device), generator=generator,
+        dtype=dt, device=device)
+    m = paths.delays.shape[-2]
+    active = torch.cat([torch.ones((m, 1), dtype=torch.bool,
+                                   device=paths.delays.device),
+                        accepted[None, :].expand(m, -1)], 1)
+    max_delay = float(torch.amax(torch.where(
+        active, paths.delays, torch.zeros_like(paths.delays))))
+    total_samples = int((duration + max_delay) * fs)
+    out_samples = int(duration * fs) if trim_to_duration else total_samples
+    return render_scene(base, paths.delays, paths.gains, fs, total_samples,
+                        out_samples, pad_mode="exact")
+
+
+def simulate_signals_fast(source_pos, mic_positions, fs: float, c: float,
+                          duration: float, signal_type: str, freq: float,
+                          plane_coeffs, plane_material_ids, absorption_table,
+                          freq_table, max_reflections: int,
+                          absorption_threshold: float,
+                          generator: Optional[torch.Generator] = None,
+                          dtype=None, device=None,
+                          absorption_mode: str = "carrier") -> torch.Tensor:
+    """Physical-mode scene simulation -> (M, int(duration*fs)): the
+    geometry and paths of the reference, rendered at a static power-of-two
+    length from a conservative host-side delay budget."""
+    if absorption_mode != "carrier":
+        raise NotImplementedError(
+            "absorption_mode='per-bin' is not ported yet (later slice)")
+    dt = dtype if dtype is not None else torch.get_default_dtype()
+    paths, _ = _scene_geometry(
+        source_pos, mic_positions, c, freq, plane_coeffs, plane_material_ids,
+        absorption_table, freq_table, max_reflections, absorption_threshold,
+        dt, device)
+    base = sig_ops.generate_signal(
+        signal_type, fs, duration,
+        torch.as_tensor(freq, dtype=dt, device=device), generator=generator,
+        dtype=dt, device=device)
+    plane_np = (np.zeros((0, 4)) if plane_coeffs is None
+                else np.asarray(plane_coeffs, float).reshape(-1, 4))
     budget = static_delay_budget(np.asarray(source_pos), mic_positions,
                                  plane_np, max_reflections, fs)
     out_samples = int(duration * fs)

@@ -2,15 +2,20 @@
 null (counterpart of the JAX package's models/tdoa.py; reference:
 utils.py:121-271).
 
-Ported: the physical-lag ladder with the 'gaussian', 'adaptive' and
-'median' thresholds, with a max_expected_delay window or over the whole
-row; its collapsed form on a lag window (``tdoa_single_from_window``, fed
-by kernels K2 / K5); the single-pair ``get_time_delays_phat``; the
-correlation metrics; and the bootstrap null: permutation, block and
-circular resamples through kernels K4a/K4b (ops/cuda_fft.fft_real +
-bootstrap_peaks), and the uniform-noise null through K4a/K6
-(``noise_bootstrap_peaks``).  The reference lag axis belongs to the parity
-slice.
+Ported: the ladder with the 'gaussian', 'adaptive' and 'median'
+thresholds, with a max_expected_delay window or over the whole row, on
+the physical lag axis (lag 0 centred, strict local maxima) or the
+reference's (SURVEY.md Q1: the positional scipy 'full' axis, no centring,
+scipy's plateau peaks); its collapsed form on a lag window
+(``tdoa_single_from_window``, fed by kernels K2 / K5); the single-pair
+``get_time_delays_phat``; the correlation metrics; and the bootstrap
+null: permutation, block and circular resamples through kernels K4a/K4b
+(ops/cuda_fft.fft_real + bootstrap_peaks), and the uniform-noise null
+through K4a/K6 (``noise_bootstrap_peaks``).  The kernels take power-of-two
+lengths; at any other length (parity mode's exact 2n - 1) the null runs
+as the JAX package's XLA branch does: ``torch.fft`` transforms of the
+resampled rows in chunks, PHAT whitening by K7 (``gccphat``), the inverse
+and the row maxima.  The route follows from the length alone.
 """
 
 from __future__ import annotations
@@ -23,7 +28,9 @@ import torch.nn.functional as F
 
 from ..ops import cuda_fft
 from ..ops import gccphat
+from ..ops import noise as noise_ops
 from ..ops import peaks as peaks_ops
+from ..ops.fftutils import irfft_n, rfft_n
 from ..ops.quantile import median_nonneg
 
 
@@ -47,20 +54,23 @@ def time_delays_from_corr(corr: torch.Tensor, n1: int, n2: int, fs: float,
     ('gaussian', 'adaptive' or 'median'; any other name falls back to
     'median' as in utils.py:149), then mean|corr|, then the global argmax,
     each re-run inside the max_expected_delay window when one is given
-    (utils.py:148-172).  Physical lags only; strict local maxima."""
-    if lag_mode != "physical":
-        raise NotImplementedError(
-            f"time_delays_from_corr: lag_mode={lag_mode!r} (the reference "
-            "lag axis and plateau peaks) is not ported yet; a later slice "
-            "brings parity mode")
+    (utils.py:148-172).  ``lag_mode='physical'`` centres lag 0 and takes
+    strict local maxima; 'reference' (or 'compat') keeps the circular
+    order on the reference's positional lag axis (``gccphat.lag_axis``)
+    with scipy's plateau peaks and an exact median, bit for bit the
+    reference's find_peaks ladder."""
     n = corr.shape[-1]
     num_candidates = min(num_candidates, n)
-    # Centre lag 0 so peaks near zero delay are interior samples.  Alias-free
-    # transforms hold linear lags in [-(n2-1), n1-1]; circular ones split
-    # symmetrically.
-    shift = n2 - 1 if n >= n1 + n2 - 1 else n // 2
-    corr = torch.roll(corr, shift, dims=-1)
-    lags = np.arange(n) - shift
+    physical = lag_mode == "physical"
+    if physical:
+        # Centre lag 0 so peaks near zero delay are interior samples.
+        # Alias-free transforms hold linear lags in [-(n2-1), n1-1];
+        # circular ones split symmetrically.
+        shift = n2 - 1 if n >= n1 + n2 - 1 else n // 2
+        corr = torch.roll(corr, shift, dims=-1)
+        lags = np.arange(n) - shift
+    else:
+        lags = gccphat.lag_axis(lag_mode, n1, n2, n)
     time_lags = torch.as_tensor(lags, dtype=corr.dtype,
                                 device=corr.device) / fs
 
@@ -75,17 +85,17 @@ def time_delays_from_corr(corr: torch.Tensor, n1: int, n2: int, fs: float,
         thr_primary = (threshold_multiplier * 0.84535
                        * torch.mean(abs_corr, -1, keepdim=True))
     else:
-        # Exact median of |corr|, on a prime-stride subsample of long rows
-        # (the JAX package's physical-mode statistic; a prime stride keeps
-        # tonal |corr| from phase-locking onto one point of its period).
-        stride = (threshold_subsample if threshold_subsample > 1
+        # Exact median of |corr|, in physical mode on a prime-stride
+        # subsample of long rows (a prime stride keeps tonal |corr| from
+        # phase-locking onto one point of its period); parity mode exact.
+        stride = (threshold_subsample if physical and threshold_subsample > 1
                   and n >= 64 * threshold_subsample else 1)
         thr_primary = threshold_multiplier * median_nonneg(
             abs_corr[..., ::stride])[..., None]
     thr_alt = torch.mean(abs_corr, -1, keepdim=True)  # utils.py:155
     distance = int(fs * 0.001)  # min 1 ms peak spacing (utils.py:151)
 
-    if max_expected_delay is not None:
+    if physical and max_expected_delay is not None:
         # After centring, the lag window is one static slice around
         # `shift`, dilated by 8 peak distances so suppressors of in-window
         # candidates are present; the threshold-existence tests scan the
@@ -103,10 +113,18 @@ def time_delays_from_corr(corr: torch.Tensor, n1: int, n2: int, fs: float,
         set_a = (pos, h_s, keep_a)
         set_b = (pos, h_s, keep_b)
     else:
+        window_mask = None
+        if max_expected_delay is not None:
+            # Dilated by a few peak distances so suppressors of in-window
+            # candidates are in the candidate set (select_peaks).
+            dilated = max_expected_delay + 4.0 * distance / fs
+            window_mask = torch.abs(time_lags) <= dilated
         set_a = peaks_ops.select_peaks(corr, thr_primary, distance,
-                                       num_candidates)
+                                       num_candidates, window_mask,
+                                       plateaus=not physical)
         set_b = peaks_ops.select_peaks(corr, thr_alt, distance,
-                                       num_candidates)
+                                       num_candidates, window_mask,
+                                       plateaus=not physical)
         use_a = torch.any(set_a[2], -1, keepdim=True)
         use_b = torch.any(set_b[2], -1, keepdim=True)
 
@@ -212,12 +230,7 @@ def get_time_delays_phat(sig1: torch.Tensor, sig2: torch.Tensor, fs: float,
     """Single-pair convenience with the reference's call shape
     (utils.py:121-181): ``gccphat.phat_correlation`` (kernels K4a + K9 at
     a power-of-two ``nfft``, torch.fft + K7 at the exact length) and the
-    ladder.  The reference lag axis (the default ``lag_mode``) belongs to
-    the parity slice; pass ``lag_mode='physical'``."""
-    if lag_mode != "physical":
-        raise NotImplementedError(
-            f"get_time_delays_phat: lag_mode={lag_mode!r} is not ported yet; "
-            "a later slice brings parity mode (pass lag_mode='physical')")
+    ladder, on the reference's lag axis by default."""
     corr = gccphat.phat_correlation(sig1, sig2, nfft=nfft)
     return time_delays_from_corr(
         corr, sig1.shape[-1], sig2.shape[-1], fs, num_peaks,
@@ -289,19 +302,47 @@ def circular_rows(sig2: torch.Tensor, num: int,
     return sig2[idx]
 
 
+# Resampled rows a chunk of the exact-length null transforms at once: at
+# parity mode's 88,199 points, 256 rows of spectra are 90 MB in complex64.
+BOOT_CHUNK = 256
+
+
 def _spectrum(sig1: torch.Tensor, n: int) -> torch.Tensor:
     """sig1's (n//2 + 1,) spectrum through kernel K4a, truncated to n
     samples first as numpy's rfft would."""
     return cuda_fft.fft_real(sig1[None, :n].contiguous(), n)[0].contiguous()
 
 
+def exact_null_peaks(sig1: torch.Tensor, rows: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """PHAT peak between ``sig1`` and each row (B, n2) at any transform
+    length n (the JAX package's XLA branch of the null, models/tdoa.py:
+    369-374 there): ``BOOT_CHUNK`` rows at a time, torch.fft spectra, the
+    cross-spectra whitened by ``gccphat``'s PHAT (kernel K7 on the card),
+    the inverse and the row maxima."""
+    s1 = rfft_n(sig1, n)[None, :]
+    peaks = []
+    for r0 in range(0, rows.shape[0], BOOT_CHUNK):
+        white = gccphat._weighted_cross(s1, rfft_n(rows[r0:r0 + BOOT_CHUNK],
+                                                   n), "phat",
+                                        gccphat.PHAT_EPS)
+        peaks.append(torch.amax(irfft_n(white, n), -1))
+    return torch.cat(peaks)
+
+
 def bootstrap_threshold(sig1: torch.Tensor, rows: torch.Tensor,
                         nfft: int, alpha: float = 0.05) -> torch.Tensor:
     """(1-alpha) quantile of the PHAT peak between ``sig1`` and each
-    resampled row (B, n2) at transform length ``nfft``."""
-    peaks = cuda_fft.bootstrap_peaks(_spectrum(sig1, nfft),
-                                     rows[:, :nfft].contiguous(), nfft,
-                                     gccphat.PHAT_EPS)
+    resampled row (B, n2) at transform length ``nfft``: kernels K4a and
+    K4b at a power of two (the lengths they take: the JAX package's
+    ``bfly_bootstrap_eligible`` by length), ``exact_null_peaks`` at any
+    other length."""
+    if gccphat._is_pow2(nfft):
+        peaks = cuda_fft.bootstrap_peaks(_spectrum(sig1, nfft),
+                                         rows[:, :nfft].contiguous(), nfft,
+                                         gccphat.PHAT_EPS)
+    else:
+        peaks = exact_null_peaks(sig1, rows, nfft)
     return torch.quantile(peaks, 1.0 - alpha)
 
 
@@ -313,13 +354,17 @@ def noise_null_peaks(sig1: torch.Tensor, sig2: torch.Tensor,
     package's ``_noise_null_peaks``): sig2 enters only through its length,
     the null's degrees of freedom.  K4a transforms sig1; K6 draws, whitens
     and reduces the rows, from one (B, 2) int32 seed pair per draw taken
-    from ``generator``."""
+    from ``generator``; at a length that is not a power of two, the same
+    draws (``ops/noise.uniform``) go through ``exact_null_peaks``."""
     seeds = torch.randint(-2 ** 31, 2 ** 31, (num_bootstrap, 2),
                           generator=generator, dtype=torch.int32,
                           device=sig1.device)
+    n_samp = min(sig2.shape[-1], nfft)
+    if not gccphat._is_pow2(nfft):
+        rows = noise_ops.uniform(seeds, n_samp).to(sig1.dtype)
+        return exact_null_peaks(sig1, rows, nfft)
     return cuda_fft.noise_bootstrap_peaks(
-        _spectrum(sig1, nfft), seeds, min(sig2.shape[-1], nfft), nfft,
-        gccphat.PHAT_EPS)
+        _spectrum(sig1, nfft), seeds, n_samp, nfft, gccphat.PHAT_EPS)
 
 
 def bootstrap_significance(sig1: torch.Tensor, sig2: torch.Tensor,

@@ -7,7 +7,7 @@ for K7):
 ===================== ====================================== ==================
 wrapper               replaces                               bound on an H100
 ===================== ====================================== ==================
-fft_real              bfly_fft_real (:685)                   memory: 2 launches
+fft_real              bfly_fft_real (:685)                   memory: 2 launches*
 whitened_corr         bfly_whitened_corr (:707)              memory: 2 launches
 gcc_all_pairs         bfly_gcc_all_pairs (:922)              memory: 3 launches
 gcc_windowed          bfly_gcc_windowed (:1095)              memory: 3 launches
@@ -17,6 +17,9 @@ scene_windowed        bfly_scene_windowed (:1600)            memory: 7 launches
 delay_sum             bfly_delay_sum (:1851)                 memory: 4 launches
 whiten                pallas_kernels.phat_whiten_planes (:34) memory: 16 B/bin
 ===================== ====================================== ==================
+
+(*) Above 2^20 points K4a runs the radix-2 passes: the packing, log2(nfft)
+passes and the split into the two spectra, 2 + log2(nfft) launches.
 
 The three kernels of K10, the TPU package's A/B tool of FFT schedules
 (``tools/mxu_rowdft_bench.py:328``), are wrapped by ``ops/rowdft.py``
@@ -49,8 +52,10 @@ GCC's lag window and statistics are taken inside the last inverse pass
 instead of writing the correlation.  The TPU kernels' bit-reversed (N2,
 128) plane layout is not carried over: spectra are in natural order.  The
 all-pairs GCC, render, windowed-GCC and scene kernels take a leading scene
-axis; every launch covers all scenes (the all-pairs GCC splits a batch
-beyond its grid limit into scene chunks).
+axis; a launch covers every scene, and a batch beyond the grids' 65,535
+rows launches over scene chunks (``scene_chunk``, one rule for the four
+kernels).  K4a, K4b, K6 and K9 take a batch of rows beyond their grids in
+chunks of ``ROW_CHUNK`` rows.
 Measurement noise and the noise-null bootstrap's rows come from a
 counter-based Philox generator (``csrc/philox.cuh``, twin
 ``ops/noise.py``) in place of the TPU core's random bits.
@@ -102,6 +107,10 @@ LAUNCHES: Dict[str, int] = {"fft_real": 0, "gcc_all_pairs": 0,
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _MAX_GRID_Y = 65535
+# Rows a launch of K4a, K4b, K6 or K9 takes: their grids' y extent is the
+# packed row count (two rows a complex transform), at most 65,535.  Even,
+# so that a longer batch packs its rows as one launch would.
+ROW_CHUNK = 2 * _MAX_GRID_Y
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -268,6 +277,29 @@ def _scratch(rows: int, nfft: int, device) -> torch.Tensor:
     return torch.empty((rows, nfft, 2), dtype=torch.float32, device=device)
 
 
+def _row_chunks(rows: int):
+    """(first, last) row of each launch over ``rows`` rows (``ROW_CHUNK``
+    at a time)."""
+    return [(r0, min(r0 + ROW_CHUNK, rows))
+            for r0 in range(0, rows, ROW_CHUNK)]
+
+
+def _split_n1(nfft: int) -> int:
+    """n1 of K4a's, K4b's and K6's schedule at nfft: 1, one block, up to
+    ``FFT_REAL_ONE_BLOCK``; the four-step split of ``fft_real_split`` up to
+    ``FFT_REAL_MAX``; 0, the radix-2 passes, above."""
+    return fft_real_split(nfft)[0] if nfft <= FFT_REAL_MAX else 0
+
+
+def _pass_scratch(n1: int, packed: int, nfft: int, device):
+    """The scratch of K4a's, K4b's and K6's schedule n1 for ``packed``
+    packed rows: none in one block, one buffer on the split, two halves
+    of one buffer (ping-pong) on the passes."""
+    if n1 == 1:
+        return None
+    return _scratch(packed * (2 if n1 == 0 else 1), nfft, device)
+
+
 def band_mask(nfft: int, band, fs: Optional[float], dtype=torch.float32,
               device=None) -> torch.Tensor:
     """(nfft//2 + 1,) band-limited PHAT mask over rfft bins (ones for
@@ -360,7 +392,7 @@ def corr_schedule(nfft: int) -> int:
     (``corr_block``), up to ``FFT_REAL_ONE_BLOCK``; the four-step split of
     ``fft_real_split`` up to ``FFT_REAL_MAX`` (its row pass holds one strip,
     which fits at every split); 0, the radix-2 passes, above."""
-    return fft_real_split(nfft)[0] if nfft <= FFT_REAL_MAX else 0
+    return _split_n1(nfft)
 
 
 def _copies(n1: int) -> int:
@@ -397,40 +429,44 @@ def _buffers(copies: int, rows: int, nfft: int, device):
 
 def fft_real(x: torch.Tensor, nfft: int) -> torch.Tensor:
     """(B, len <= nfft) real rows -> (B, nfft//2 + 1) complex spectra in
-    natural order (zero-padded to nfft), nfft <= 2^20.
+    natural order (zero-padded to nfft).
 
     Replaces ``bfly_fft_real`` (pyaudiolocalization_tpu/ops/pallas_fft.py:
     685), whose output is an opaque bit-reversed (N2, 128) plane layout.
-    Two rows share each complex transform, a four-step split
-    (``fft_real_split``) of two on-chip launches (one up to nfft = 4096):
-    the columns' DFTs with the twiddle, then the rows' DFTs with the two
-    real spectra split in the epilogue.  Bound by device memory: the
-    rows' read, one write and one read of the packed intermediate, the
-    spectra's write."""
+    Two rows share each complex transform.  By length (``_split_n1``): up
+    to nfft = 4096 one launch, a block per packed row; up to 2^20 a
+    four-step split (``fft_real_split``) of two on-chip launches, the
+    columns' DFTs with the twiddle, then the rows' DFTs with the two real
+    spectra split in the epilogue; above, the packed rows, the log2(nfft)
+    radix-2 passes through device memory (one launch a pass) and the split
+    into the two spectra.  Bound by device memory: the rows' read, one
+    write and one read of the packed intermediate (a pass) and the
+    spectra's write.  A batch beyond ``ROW_CHUNK`` rows launches in
+    chunks."""
     if _use_plain(x):
         return fft_real_plain(x, nfft)
     _check_contiguous("fft_real", x)
     _check_f32("fft_real", x)
     _check_pow2(nfft)
-    if nfft > FFT_REAL_MAX:
-        raise ValueError(f"fft_real: nfft must be at most {FFT_REAL_MAX} "
-                         f"(1024 x 1024, the largest four-step split of two "
-                         f"on-chip transforms), got {nfft}")
     rows, length = x.shape
-    if length > nfft or rows > _MAX_GRID_Y:
+    if length > nfft:
         raise ValueError(f"fft_real: unsupported shape {tuple(x.shape)} at "
                          f"nfft={nfft}")
     lib = _library()
     dev = x.device
     out = torch.empty((rows, nfft // 2 + 1), dtype=torch.complex64,
                       device=dev)
-    n1, n2 = fft_real_split(nfft)
-    buf = _scratch((rows + 1) // 2, nfft, dev) if n1 > 1 else None
+    n1 = _split_n1(nfft)
+    n2 = nfft // n1 if n1 else nfft
+    chunks = _row_chunks(rows)
+    packed = (chunks[0][1] + 1) // 2 if chunks else 0
+    buf = _pass_scratch(n1, packed, nfft, dev)
     tw = _twiddles(nfft, str(dev))
-    _launch("fft_real", dev, lib.palt_fft_real, x.data_ptr(), rows, length,
-            nfft, n1, fft_real_rows_strip(n2, (rows + 1) // 2),
-            tw.data_ptr(), None if buf is None else buf.data_ptr(),
-            out.data_ptr())
+    for r0, r1 in chunks:
+        _launch("fft_real", dev, lib.palt_fft_real, x[r0].data_ptr(),
+                r1 - r0, length, nfft, n1,
+                fft_real_rows_strip(n2, (r1 - r0 + 1) // 2), tw.data_ptr(),
+                _ptr(buf), out[r0].data_ptr())
     return out
 
 
@@ -471,7 +507,8 @@ def whitened_corr(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
     DFTs write the rows in natural order; above, the radix-2 passes.
     Bound by device memory (the spectra's read, the rows' write, one
     write and one read of the packed buffer on the split); a single pair's
-    call by its launches' latency."""
+    call by its launches' latency.  A batch beyond ``ROW_CHUNK`` row
+    pairs launches in chunks."""
     if _use_plain(a, b, mask):
         return whitened_corr_plain(a, b, mask, nfft, eps)
     _check_contiguous("whitened_corr", a, b, mask)
@@ -480,19 +517,22 @@ def whitened_corr(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
     if a.dtype != torch.complex64 or b.dtype != torch.complex64:
         raise ValueError("whitened_corr: spectra must be complex64")
     if (a.dim() != 2 or a.shape != b.shape or a.shape[0] == 0
-            or a.shape[1] != nfft // 2 + 1 or mask.shape != (nfft // 2 + 1,)
-            or (a.shape[0] + 1) // 2 > _MAX_GRID_Y):
+            or a.shape[1] != nfft // 2 + 1
+            or mask.shape != (nfft // 2 + 1,)):
         raise ValueError("whitened_corr: unsupported shapes")
     lib = _library()
     dev = a.device
     rows = a.shape[0]
     out = torch.empty((rows, nfft), dtype=torch.float32, device=dev)
     n1 = corr_schedule(nfft)
-    z0, z1, _z = _buffers(_copies(n1), (rows + 1) // 2, nfft, dev)
+    chunks = _row_chunks(rows)
+    z0, z1, _z = _buffers(_copies(n1), (chunks[0][1] + 1) // 2, nfft, dev)
     tw = _twiddles(nfft, str(dev))
-    _launch("whitened_corr", dev, lib.palt_whitened_corr, a.data_ptr(),
-            b.data_ptr(), rows, nfft, n1, mask.data_ptr(), eps,
-            tw.data_ptr(), z0, z1, out.data_ptr())
+    for r0, r1 in chunks:
+        _launch("whitened_corr", dev, lib.palt_whitened_corr,
+                a[r0].data_ptr(), b[r0].data_ptr(), r1 - r0, nfft, n1,
+                mask.data_ptr(), eps, tw.data_ptr(), z0, z1,
+                out[r0].data_ptr())
     return out
 
 
@@ -514,11 +554,22 @@ def gcc_all_pairs_plain(signals: torch.Tensor, pairs_i: Sequence[int],
     return torch.fft.irfft(white, n=nfft)
 
 
-def scene_chunk(scenes: int, mics: int, couples: int) -> int:
-    """Scenes per K1 launch: every grid's y extent (the packed mic rows,
-    (chunk * mics + 1) / 2, and the pair couples, chunk * couples) stays
-    within 65,535."""
-    return min(scenes, _MAX_GRID_Y // couples, 2 * _MAX_GRID_Y // mics)
+def scene_chunk(scenes: int, mics: int, num_pairs: int = 0) -> int:
+    """Scenes per launch of K1, K2, K3 and K5, one rule for all four:
+    every grid's y extent stays within 65,535 — the packed base rows
+    ((chunk + 1) / 2), the packed mic rows ((chunk * mics + 1) / 2), the
+    scenes of a GCC row pass (chunk) and the pair couples (chunk *
+    couples).  The couples are those of the larger of ``num_pairs`` and
+    the all-pairs count M (M - 1) / 2, so that K3, which has no pairs,
+    chunks as K2 and K5 do over all pairs of the same scenes, and the
+    sweep's fused and split paths stay equal to the bit.  A chunk short of
+    ``scenes`` is even, so that rows pack two to a transform (the bases,
+    and the mic rows of an odd mic count, across scenes) as one launch
+    over every scene packs them; each scene's noise comes from its own
+    seed words, so a chunk draws what one launch would."""
+    couples = max(1, (max(num_pairs, mics * (mics - 1) // 2) + 1) // 2)
+    limit = min(_MAX_GRID_Y // couples, 2 * _MAX_GRID_Y // max(mics, 1))
+    return scenes if scenes <= limit else limit - limit % 2
 
 
 def gcc_all_pairs(signals: torch.Tensor, pairs_i: Sequence[int],
@@ -566,7 +617,7 @@ def gcc_all_pairs(signals: torch.Tensor, pairs_i: Sequence[int],
     num_pairs = int(pi.shape[0])
     couples = (num_pairs + 1) // 2
     n1 = gcc_schedule(nfft, mics)
-    chunk = scenes if n1 == 1 else scene_chunk(scenes, mics, couples)
+    chunk = scenes if n1 == 1 else scene_chunk(scenes, mics, num_pairs)
     if length > nfft or mask.shape != (nfft // 2 + 1,):
         raise ValueError("gcc_all_pairs: unsupported shapes")
     dev = signals.device
@@ -651,7 +702,9 @@ def gcc_windowed(signals: torch.Tensor, pairs_i: Sequence[int],
     statistics (per-block partials summed in block order by the row's
     last block, the argmax by a 64-bit atomic maximum that keeps the
     smallest index on ties).  Elsewhere the radix-2 passes, the last one
-    fused with the window and the statistics.  Bound by device memory."""
+    fused with the window and the statistics.  Bound by device memory.  A
+    batch whose grids would exceed 65,535 rows launches over scene chunks
+    (``scene_chunk``)."""
     _check_window("gcc_windowed", nfft, wq)
     if _use_plain(signals, mask):
         return gcc_windowed_plain(signals, pairs_i, pairs_j, nfft, wq, mask,
@@ -665,10 +718,7 @@ def gcc_windowed(signals: torch.Tensor, pairs_i: Sequence[int],
     scenes = int(np.prod(lead)) if lead else 1
     num_pairs = int(pi.shape[0])
     couples = (num_pairs + 1) // 2
-    rows = scenes * mics
-    if (length > nfft or mask.shape != (nfft // 2 + 1,) or scenes == 0
-            or (rows + 1) // 2 > _MAX_GRID_Y
-            or scenes * couples > _MAX_GRID_Y):
+    if length > nfft or mask.shape != (nfft // 2 + 1,) or scenes == 0:
         raise ValueError("gcc_windowed: unsupported shapes")
     lib = _library()
     dev = signals.device
@@ -679,17 +729,24 @@ def gcc_windowed(signals: torch.Tensor, pairs_i: Sequence[int],
                       device=dev)
     stats = torch.empty(lead + (num_pairs, 3), dtype=torch.float32,
                         device=dev)
+    chunk = scene_chunk(scenes, mics, num_pairs)
     n1 = scene_stages(nfft, mics)[1]
     copies = 1 if n1 else 2
-    spec0, spec1, _spec = _buffers(copies, (rows + 1) // 2, nfft, dev)
-    cpl0, cpl1, _cpl = _buffers(copies, scenes * couples, nfft, dev)
-    keys, count, part = _window_scratch(scenes * couples, nfft, n1, dev)
+    spec0, spec1, _spec = _buffers(copies, (chunk * mics + 1) // 2, nfft,
+                                   dev)
+    cpl0, cpl1, _cpl = _buffers(copies, chunk * couples, nfft, dev)
+    keys, count, part = _window_scratch(chunk * couples, nfft, n1, dev)
     tw = _twiddles(nfft, str(dev))
-    _launch("gcc_windowed", dev, lib.palt_gcc_windowed, signals.data_ptr(),
-            scenes, mics, length, nfft, n1, pi_t.data_ptr(), pj_t.data_ptr(),
-            num_pairs, mask.data_ptr(), eps, wq, tw.data_ptr(), spec0, spec1,
-            cpl0, cpl1, _ptr(keys), _ptr(count), _ptr(part), win.data_ptr(),
-            stats.data_ptr())
+    x = signals.view(scenes, mics, length)
+    win_s = win.view(scenes, num_pairs, width)
+    stats_s = stats.view(scenes, num_pairs, 3)
+    for s0 in range(0, scenes, chunk):
+        _launch("gcc_windowed", dev, lib.palt_gcc_windowed,
+                x[s0].data_ptr(), min(chunk, scenes - s0), mics, length,
+                nfft, n1, pi_t.data_ptr(), pj_t.data_ptr(), num_pairs,
+                mask.data_ptr(), eps, wq, tw.data_ptr(), spec0, spec1, cpl0,
+                cpl1, _ptr(keys), _ptr(count), _ptr(part),
+                win_s[s0].data_ptr(), stats_s[s0].data_ptr())
     return win, stats
 
 
@@ -728,7 +785,8 @@ def bootstrap_peaks(s1: torch.Tensor, rows: torch.Tensor, nfft: int,
       pass), ping-ponging in a scratch buffer of twice the packed rows.
 
     Bound by device memory: the rows' read and, on the split, two reads
-    and two writes of the packed buffer."""
+    and two writes of the packed buffer.  A batch beyond ``ROW_CHUNK``
+    rows launches in chunks."""
     if _use_plain(s1, rows):
         return bootstrap_peaks_plain(s1, rows, nfft, eps)
     _check_contiguous("bootstrap_peaks", s1, rows)
@@ -738,21 +796,19 @@ def bootstrap_peaks(s1: torch.Tensor, rows: torch.Tensor, nfft: int,
                          f"{s1.dtype}")
     _check_pow2(nfft)
     num, length = rows.shape
-    if (length > nfft or s1.shape != (nfft // 2 + 1,) or num == 0
-            or (num + 1) // 2 > _MAX_GRID_Y):
+    if length > nfft or s1.shape != (nfft // 2 + 1,) or num == 0:
         raise ValueError("bootstrap_peaks: unsupported shapes")
     lib = _library()
     dev = rows.device
     out = torch.empty(num, dtype=torch.float32, device=dev)
-    packed = (num + 1) // 2
-    # n1 = 0 selects the passes (two halves of one buffer), 1 one block.
-    n1 = fft_real_split(nfft)[0] if nfft <= FFT_REAL_MAX else 0
-    buf = (None if n1 == 1 else
-           _scratch(packed * (2 if n1 == 0 else 1), nfft, dev))
+    n1 = _split_n1(nfft)
+    chunks = _row_chunks(num)
+    buf = _pass_scratch(n1, (chunks[0][1] + 1) // 2, nfft, dev)
     tw = _twiddles(nfft, str(dev))
-    _launch("bootstrap_peaks", dev, lib.palt_bootstrap_peaks, s1.data_ptr(),
-            rows.data_ptr(), num, length, nfft, n1, eps, tw.data_ptr(),
-            None if buf is None else buf.data_ptr(), out.data_ptr())
+    for r0, r1 in chunks:
+        _launch("bootstrap_peaks", dev, lib.palt_bootstrap_peaks,
+                s1.data_ptr(), rows[r0].data_ptr(), r1 - r0, length, nfft,
+                n1, eps, tw.data_ptr(), _ptr(buf), out[r0:].data_ptr())
     return out
 
 
@@ -786,7 +842,8 @@ def noise_bootstrap_peaks(s1: torch.Tensor, seeds: torch.Tensor,
     equal ``bootstrap_peaks`` of ``noise_ops.uniform(seeds, n_samp)``
     bit for bit on the split and in one block.  Bound by device memory
     (one write and two reads of the packed buffer on the split) and the
-    Philox rounds."""
+    Philox rounds.  A batch beyond ``ROW_CHUNK`` draws launches in
+    chunks."""
     if _use_plain(s1, seeds):
         return noise_bootstrap_peaks_plain(s1, seeds, n_samp, nfft, eps)
     _check_contiguous("noise_bootstrap_peaks", s1, seeds)
@@ -796,21 +853,20 @@ def noise_bootstrap_peaks(s1: torch.Tensor, seeds: torch.Tensor,
     _check_pow2(nfft)
     num = seeds.shape[0]
     if (seeds.shape != (num, 2) or num == 0 or not 0 < n_samp <= nfft
-            or s1.shape != (nfft // 2 + 1,) or (num + 1) // 2 > _MAX_GRID_Y):
+            or s1.shape != (nfft // 2 + 1,)):
         raise ValueError("noise_bootstrap_peaks: unsupported shapes")
     lib = _library()
     dev = s1.device
     out = torch.empty(num, dtype=torch.float32, device=dev)
-    packed = (num + 1) // 2
-    # As bootstrap_peaks: n1 = 0 the passes (two halves of one buffer),
-    # 1 one block (no buffer).
-    n1 = fft_real_split(nfft)[0] if nfft <= FFT_REAL_MAX else 0
-    buf = (None if n1 == 1 else
-           _scratch(packed * (2 if n1 == 0 else 1), nfft, dev))
+    n1 = _split_n1(nfft)
+    chunks = _row_chunks(num)
+    buf = _pass_scratch(n1, (chunks[0][1] + 1) // 2, nfft, dev)
     tw = _twiddles(nfft, str(dev))
-    _launch("noise_bootstrap_peaks", dev, lib.palt_noise_bootstrap_peaks,
-            s1.data_ptr(), seeds.data_ptr(), num, n_samp, nfft, n1, eps,
-            tw.data_ptr(), _ptr(buf), out.data_ptr())
+    for r0, r1 in chunks:
+        _launch("noise_bootstrap_peaks", dev,
+                lib.palt_noise_bootstrap_peaks, s1.data_ptr(),
+                seeds[r0].data_ptr(), r1 - r0, n_samp, nfft, n1, eps,
+                tw.data_ptr(), _ptr(buf), out[r0:].data_ptr())
     return out
 
 
@@ -863,6 +919,19 @@ def _check_noise(name, snr_db, seeds, lead, dev):
     return snr_db.contiguous(), seeds.contiguous()
 
 
+def _at(t: Optional[torch.Tensor], s0: int):
+    """Pointer to scene s0 of a per-scene tensor, or None."""
+    return None if t is None else t[s0].data_ptr()
+
+
+def _scene_views(lead, *tensors):
+    """Each tensor (or None), contiguous with leading scene axes ``lead``,
+    viewed with those axes flattened into one."""
+    scenes = int(np.prod(lead)) if lead else 1
+    return [None if t is None else t.view((scenes,) + t.shape[len(lead):])
+            for t in tensors]
+
+
 def _render_shapes(name, base, tau, gains, nfft, out_samples, fade):
     lead = base.shape[:-1]
     length = base.shape[-1]
@@ -872,9 +941,7 @@ def _render_shapes(name, base, tau, gains, nfft, out_samples, fade):
     scenes = int(np.prod(lead)) if lead else 1
     if (length > nfft or gains.shape != tau.shape or paths == 0
             or scenes == 0 or out_samples > nfft
-            or fade.shape != (out_samples,)
-            or (scenes + 1) // 2 > _MAX_GRID_Y
-            or (scenes * mics + 1) // 2 > _MAX_GRID_Y):
+            or fade.shape != (out_samples,)):
         raise ValueError(f"{name}: unsupported shapes")
     return lead, scenes, length, mics, paths
 
@@ -903,7 +970,9 @@ def delay_sum(base: torch.Tensor, tau: torch.Tensor, gains: torch.Tensor,
     K4a's column pass over the bases; a row pass that holds a base strip,
     mixes each of its mic rows in turn and runs their inverse row DFTs;
     the inverse column DFTs in place; the finalize.  Elsewhere the radix-2
-    passes.  Bound by device memory."""
+    passes.  Bound by device memory.  A batch whose grids would exceed
+    65,535 rows launches over the scene chunks K2 and K5 take for all
+    pairs of the same mics (``scene_chunk``)."""
     _check_noise_pair("delay_sum", snr_db, seeds)
     if _use_plain(base, tau, gains, fade):
         return delay_sum_plain(base, tau, gains, nfft, out_samples, fade,
@@ -919,15 +988,21 @@ def delay_sum(base: torch.Tensor, tau: torch.Tensor, gains: torch.Tensor,
     dev = base.device
     out = torch.empty(lead + (mics, out_samples), dtype=torch.float32,
                       device=dev)
+    chunk = scene_chunk(scenes, mics)
     n1 = scene_stages(nfft, mics)[0]
     copies = 1 if n1 else 2
-    zb0, zb1, _zb = _buffers(copies, (scenes + 1) // 2, nfft, dev)
-    zm0, zm1, _zm = _buffers(copies, (scenes * mics + 1) // 2, nfft, dev)
+    zb0, zb1, _zb = _buffers(copies, (chunk + 1) // 2, nfft, dev)
+    zm0, zm1, _zm = _buffers(copies, (chunk * mics + 1) // 2, nfft, dev)
     tw = _twiddles(nfft, str(dev))
-    _launch("delay_sum", dev, lib.palt_delay_sum, base.data_ptr(), scenes,
-            length, tau.data_ptr(), gains.data_ptr(), mics, paths, nfft, n1,
-            out_samples, fade.data_ptr(), int(finalize), _ptr(snr_db),
-            _ptr(seeds), tw.data_ptr(), zb0, zb1, zm0, zm1, out.data_ptr())
+    base_s, tau_s, gains_s, snr_s, seeds_s, out_s = _scene_views(
+        lead, base, tau, gains, snr_db, seeds, out)
+    for s0 in range(0, scenes, chunk):
+        _launch("delay_sum", dev, lib.palt_delay_sum, base_s[s0].data_ptr(),
+                min(chunk, scenes - s0), length, tau_s[s0].data_ptr(),
+                gains_s[s0].data_ptr(), mics, paths, nfft, n1, out_samples,
+                fade.data_ptr(), int(finalize), _at(snr_s, s0),
+                _at(seeds_s, s0), tw.data_ptr(), zb0, zb1, zm0, zm1,
+                out_s[s0].data_ptr())
     return out
 
 
@@ -968,7 +1043,9 @@ def scene_windowed(base: torch.Tensor, tau: torch.Tensor,
     the packed forward input of the GCC stage (zero-padded to nfft), whose
     column pass transforms it in place.  The same stage code as
     ``delay_sum`` then ``gcc_windowed``, so the two paths agree to the bit
-    on the same inputs.  Bound by device memory."""
+    on the same inputs; a batch whose grids would exceed 65,535 rows
+    launches over the scene chunks those two take (``scene_chunk``).
+    Bound by device memory."""
     _check_noise_pair("scene_windowed", snr_db, seeds)
     _check_window("scene_windowed", nfft, wq)
     if _use_plain(base, tau, gains, fade, mask):
@@ -985,7 +1062,7 @@ def scene_windowed(base: torch.Tensor, tau: torch.Tensor,
     pi, pj = _check_pairs("scene_windowed", pairs_i, pairs_j, mics)
     num_pairs = int(pi.shape[0])
     couples = (num_pairs + 1) // 2
-    if mask.shape != (nfft // 2 + 1,) or scenes * couples > _MAX_GRID_Y:
+    if mask.shape != (nfft // 2 + 1,):
         raise ValueError("scene_windowed: unsupported shapes")
     lib = _library()
     dev = base.device
@@ -996,21 +1073,26 @@ def scene_windowed(base: torch.Tensor, tau: torch.Tensor,
                       device=dev)
     stats = torch.empty(lead + (num_pairs, 3), dtype=torch.float32,
                         device=dev)
+    chunk = scene_chunk(scenes, mics, num_pairs)
     n1r, n1g = scene_stages(nfft, mics)
     # One copy of a buffer where the stages that use it run on the split.
-    zb0, zb1, _zb = _buffers(1 if n1r else 2, (scenes + 1) // 2, nfft, dev)
+    zb0, zb1, _zb = _buffers(1 if n1r else 2, (chunk + 1) // 2, nfft, dev)
     zm0, zm1, _zm = _buffers(1 if n1r and n1g else 2,
-                             (scenes * mics + 1) // 2, nfft, dev)
-    cpl0, cpl1, _cpl = _buffers(1 if n1g else 2, scenes * couples, nfft, dev)
-    keys, count, part = _window_scratch(scenes * couples, nfft, n1g, dev)
+                             (chunk * mics + 1) // 2, nfft, dev)
+    cpl0, cpl1, _cpl = _buffers(1 if n1g else 2, chunk * couples, nfft, dev)
+    keys, count, part = _window_scratch(chunk * couples, nfft, n1g, dev)
     tw = _twiddles(nfft, str(dev))
-    _launch("scene_windowed", dev, lib.palt_scene_windowed, base.data_ptr(),
-            scenes, length, tau.data_ptr(), gains.data_ptr(), mics, paths,
-            nfft, n1r, n1g, out_samples, fade.data_ptr(), _ptr(snr_db),
-            _ptr(seeds), pi_t.data_ptr(), pj_t.data_ptr(), num_pairs,
-            mask.data_ptr(), eps, wq, tw.data_ptr(), zb0, zb1, zm0, zm1,
-            cpl0, cpl1, _ptr(keys), _ptr(count), _ptr(part), win.data_ptr(),
-            stats.data_ptr())
+    base_s, tau_s, gains_s, snr_s, seeds_s, win_s, stats_s = _scene_views(
+        lead, base, tau, gains, snr_db, seeds, win, stats)
+    for s0 in range(0, scenes, chunk):
+        _launch("scene_windowed", dev, lib.palt_scene_windowed,
+                base_s[s0].data_ptr(), min(chunk, scenes - s0), length,
+                tau_s[s0].data_ptr(), gains_s[s0].data_ptr(), mics, paths,
+                nfft, n1r, n1g, out_samples, fade.data_ptr(), _at(snr_s, s0),
+                _at(seeds_s, s0), pi_t.data_ptr(), pj_t.data_ptr(),
+                num_pairs, mask.data_ptr(), eps, wq, tw.data_ptr(), zb0,
+                zb1, zm0, zm1, cpl0, cpl1, _ptr(keys), _ptr(count),
+                _ptr(part), win_s[s0].data_ptr(), stats_s[s0].data_ptr())
     return win, stats
 
 

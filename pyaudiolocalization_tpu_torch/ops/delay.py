@@ -1,17 +1,23 @@
 """Fractional delays and the batched delay-and-sum render (counterpart of
 the JAX package's ops/delay.py; reference: signal_processing.py:66-80).
 
-Only the physical path's circular power-of-two render is ported: it goes
-through ``ops/cuda_fft.delay_sum`` (its plain twin on the CPU, kernel K3
-on the card).
+The power-of-two renders ('pow2-circular', the physical path's, and
+'pow2') go through ``ops/cuda_fft.delay_sum`` (its plain twin on the CPU,
+kernel K3 on the card), as the JAX package's ``bfly_render_eligible``
+sends a power-of-two length to its Pallas render.  The reference's exact
+2N render ('exact', parity mode and calibration) is plain PyTorch, the
+JAX package's XLA path: one rfft of the base, the per-mic sums of phase
+ramps exp(-i 2 pi f delay), one irfft per mic.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from . import cuda_fft
-from .fftutils import next_pow2
+from .fftutils import irfft_n, next_pow2, rfft_n
 
 
 def fade_window(num_samples: int, fraction: float = 0.01, dtype=None,
@@ -28,23 +34,49 @@ def fade_window(num_samples: int, fraction: float = 0.01, dtype=None,
     return window
 
 
+def _phase_ramp(padded_length: int, delays: torch.Tensor,
+                fs: float) -> torch.Tensor:
+    """exp(-i 2 pi f delay) over the rfft bins of ``padded_length``;
+    ``delays`` of any batch shape gains a trailing frequency axis."""
+    freqs = torch.fft.rfftfreq(padded_length, d=1.0 / fs,
+                               dtype=delays.dtype, device=delays.device)
+    theta = 2 * math.pi * freqs * delays[..., None]
+    return torch.complex(torch.cos(theta), -torch.sin(theta))
+
+
 def delay_and_sum(base: torch.Tensor, delays: torch.Tensor,
                   gains: torch.Tensor, fs: float, apply_fade: bool = True,
                   pad_mode: str = "pow2-circular") -> torch.Tensor:
     """Batched multipath render: for each channel m,
     ``out[m] = fade * sum_p gains[m, p] * delay(base, delays[m, p])``.
 
-    base (N,) real, delays (M, P) seconds, gains (M, P) -> (M, N).  Only
-    ``pad_mode='pow2-circular'`` (transform length next_pow2(N), circular)
-    is ported: the caller guarantees the longest delay fits the padding."""
-    if pad_mode != "pow2-circular":
-        raise NotImplementedError(
-            f"delay_and_sum pad_mode={pad_mode!r} is not ported yet (the "
-            "exact-length render belongs to the parity-mode slice)")
+    base (..., N) real, delays (..., M, P) seconds, gains (..., M, P) ->
+    (..., M, N).
+    ``pad_mode``: 'exact' transforms at the reference's 2N; 'pow2' at
+    next_pow2(2N), alias-free for any delay below N samples like 'exact';
+    'pow2-circular' at next_pow2(N), circular: the caller guarantees the
+    longest delay fits the padding."""
     n = base.shape[-1]
+    if pad_mode == "exact":
+        padded = 2 * n
+    elif pad_mode == "pow2":
+        padded = next_pow2(2 * n)
+    elif pad_mode == "pow2-circular":
+        padded = next_pow2(n)
+    else:
+        raise ValueError(
+            f"pad_mode must be 'exact', 'pow2' or 'pow2-circular', got "
+            f"{pad_mode!r}")
     fade = (fade_window(n, dtype=base.dtype, device=base.device)
             if apply_fade else
             torch.ones(n, dtype=base.dtype, device=base.device))
-    return cuda_fft.delay_sum(base, (delays * fs).to(base.dtype).contiguous(),
-                              gains.to(base.dtype).contiguous(),
-                              next_pow2(n), n, fade, finalize=False)
+    if pad_mode != "exact":
+        return cuda_fft.delay_sum(
+            base, (delays * fs).to(base.dtype).contiguous(),
+            gains.to(base.dtype).contiguous(), padded, n, fade,
+            finalize=False)
+    spec = rfft_n(base, padded)                              # (..., F)
+    ramps = _phase_ramp(padded, delays.to(base.dtype), fs)   # (..., M, P, F)
+    mixed = torch.einsum("...mp,...mpf->...mf", gains.to(ramps.dtype),
+                         ramps) * spec[..., None, :]
+    return irfft_n(mixed, padded)[..., :n].to(base.dtype) * fade

@@ -17,8 +17,11 @@ K1 takes any leading (scene) axes, so the sweep's full-correlation branch
 runs it over every scene in one launch.  ``phat_correlation`` (one
 pair) at a power-of-two length no shorter than both signals runs K4a (both
 spectra in one launch) and K9 (``cuda_fft.whitened_corr``); at any other
-length it takes the unfused route.  On the CPU the kernels' plain twins
-run.  Streaming GCC and the reference lag axis belong to later slices.
+length it takes the unfused route.  Parity mode's exact length 2n - 1 is
+never a power of two, so its correlations always take the unfused route
+(K7).  On the CPU the kernels' plain twins run.  Both lag conventions are
+here: the reference's positional axis (``lags_reference``, SURVEY.md Q1)
+and the physical decoding.  Streaming GCC belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -134,8 +137,25 @@ def gcc_phat_all_pairs(signals: torch.Tensor,
     return irfft_n(white, n).to(signals.dtype)
 
 
+def lags_reference(n1: int, n2: int, n: int) -> np.ndarray:
+    """The reference's (defective, Q1) lag axis: scipy correlation_lags
+    'full' values indexed positionally against the circular array
+    (utils.py:141-142): lag[k] = k - (n2 - 1), extended to length n."""
+    return np.arange(n) - (n2 - 1)
+
+
 def lags_physical(n1: int, n: int) -> np.ndarray:
     """Correct circular decoding: index k holds linear-correlation lag
     m = k for k < n1 and m = k - n otherwise."""
     k = np.arange(n)
     return np.where(k < n1, k, k - n)
+
+
+def lag_axis(mode: str, n1: int, n2: int, n: int) -> np.ndarray:
+    """The lag of each circular index under ``mode``: 'reference' (or its
+    alias 'compat') or 'physical'."""
+    if mode in ("reference", "compat"):
+        return lags_reference(n1, n2, n)
+    if mode == "physical":
+        return lags_physical(n1, n)
+    raise ValueError(f"unknown lag mode {mode!r}")

@@ -1,13 +1,13 @@
 """Peak detection with scipy.signal.find_peaks semantics (counterpart of
 the JAX package's ops/peaks.py; reference: utils.py:151-152).
 
-Ported: the strict three-point local maxima, the full-row top-k candidate
-selection with an optional lag-window merge, and the two-threshold
-selection of the windowed ladder.  Candidates are the top-k local maxima
-by height (a stable sort, ties to the lower index like
-``jax.lax.top_k``); distance pruning removes smaller peaks first, with
-scipy's strict ``< distance`` rule.  Plateau peaks (parity mode) belong to
-a later slice.
+Ported: the strict three-point local maxima and, with ``plateaus=True``
+(parity mode), scipy's plateau peaks at the midpoint ``(left + right) //
+2``; the full-row top-k candidate selection with an optional lag-window
+merge, and the two-threshold selection of the windowed ladder.
+Candidates are the top-k local maxima by height (a stable sort, ties to
+the lower index like ``jax.lax.top_k``); distance pruning removes smaller
+peaks first, with scipy's strict ``< distance`` rule.
 """
 
 from __future__ import annotations
@@ -17,10 +17,37 @@ from typing import Optional
 import torch
 
 
-def local_maxima(x: torch.Tensor) -> torch.Tensor:
-    """Strict interior three-point maxima along the last axis."""
-    core = (x[..., 1:-1] > x[..., :-2]) & (x[..., 1:-1] > x[..., 2:])
-    return torch.nn.functional.pad(core, (1, 1), value=False)
+def local_maxima(x: torch.Tensor, plateaus: bool = False) -> torch.Tensor:
+    """Local maxima along the last axis.
+
+    ``plateaus=False``: strict interior three-point maxima.
+    ``plateaus=True``: scipy.signal.find_peaks semantics — an equal-valued
+    run whose left edge rises and right edge falls marks one peak at its
+    midpoint ``(start + end) // 2`` (utils.py:152).  Each sample's run
+    start and end come from running maxima of the run-boundary indices
+    (the JAX package's two segmented scans)."""
+    if not plateaus:
+        core = (x[..., 1:-1] > x[..., :-2]) & (x[..., 1:-1] > x[..., 2:])
+        return torch.nn.functional.pad(core, (1, 1), value=False)
+    n = x.shape[-1]
+    if n < 3:
+        return torch.zeros_like(x, dtype=torch.bool)
+    pad = torch.nn.functional.pad
+    t = torch.arange(n, device=x.device).expand(x.shape)
+    change = pad(x[..., 1:] != x[..., :-1], (1, 0), value=True)
+    rising = pad(x[..., 1:] > x[..., :-1], (1, 0), value=False)
+    endb = pad(x[..., :-1] != x[..., 1:], (0, 1), value=True)
+    falling = pad(x[..., :-1] > x[..., 1:], (0, 1), value=False)
+    zero = torch.zeros_like(t)
+    start = torch.cummax(torch.where(change, t, zero), -1).values
+    # The last sample of each run: the same running maximum over the
+    # reversed row, in reversed coordinates.
+    rev = torch.cummax(torch.where(torch.flip(endb, [-1]), t, zero),
+                       -1).values
+    end = n - 1 - torch.flip(rev, [-1])
+    ok_left = torch.gather(rising, -1, start)
+    ok_right = torch.gather(falling, -1, end)
+    return ok_left & ok_right & (t == (start + end) // 2)
 
 
 def _top_k(vals: torch.Tensor, k: int):
@@ -37,15 +64,16 @@ def compact_valid(pos: torch.Tensor, heights: torch.Tensor,
 
 
 def select_peaks(x: torch.Tensor, threshold: torch.Tensor, distance: int,
-                 k: int = 128, window_mask: Optional[torch.Tensor] = None):
-    """Top-k strict local maxima of ``x`` with height >= ``threshold`` and
-    a minimum separation ``distance``.  Returns (pos, heights, keep),
+                 k: int = 128, window_mask: Optional[torch.Tensor] = None,
+                 plateaus: bool = False):
+    """Top-k local maxima of ``x`` (``local_maxima(x, plateaus)``) with
+    height >= ``threshold`` and a minimum separation ``distance``.  Returns (pos, heights, keep),
     ordered by descending height (stable); ``keep`` marks candidates that
     exist and survive distance pruning.  With ``window_mask`` (pre-dilated
     by the caller) the top-k inside the window are merged in, so the
     tallest surviving in-window peak is present even when it is globally
     short; a duplicate position is suppressed by its earlier copy."""
-    mask = local_maxima(x) & (x >= threshold)
+    mask = local_maxima(x, plateaus) & (x >= threshold)
     neg = torch.full_like(x, -float("inf"))
     vals = torch.where(mask, x, neg)
     heights, pos = _top_k(vals, k)

@@ -84,12 +84,52 @@ def test_fft_real_kernel_matches_plain(cuda, rows, length, nfft):
 
 
 @pytest.mark.cuda
-def test_fft_real_raises_above_its_largest_length(cuda):
-    x = torch.randn((1, 1000), generator=_gen(cuda), device=cuda)
-    assert cf.fft_real(x, cf.FFT_REAL_MAX).shape == (1, cf.FFT_REAL_MAX // 2
-                                                     + 1)
-    with pytest.raises(ValueError, match="at most 1048576"):
-        cf.fft_real(x, 2 * cf.FFT_REAL_MAX)
+@pytest.mark.parametrize("rows,length,nfft", [
+    (2, 1_046_019, 1 << 21), (3, 1_046_019, 1 << 21), (1, 2_000_000, 1 << 22)])
+def test_fft_real_runs_the_passes_above_2_20(cuda, rows, length, nfft):
+    """Above the largest four-step split (2^20) K4a packs the rows, runs
+    the radix-2 passes (one launch a pass) and splits the two spectra:
+    against its twin at 2^21 (a 23.7 s recording at 44.1 kHz, the
+    bootstrap's spectrum) and 2^22.  Relative to the spectrum's peak, as
+    the split: log2(nfft) float32 passes in the kernel and in cuFFT."""
+    x = torch.randn((rows, length), generator=_gen(cuda), device=cuda)
+    before = cf.LAUNCHES["fft_real"]
+    got = cf.fft_real(x, nfft)
+    assert cf.LAUNCHES["fft_real"] == before + 1
+    want = cf.fft_real_plain(x, nfft)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.complex64 and got.shape == want.shape
+    assert float((got - want).abs().max()) < 5e-6 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["permutation", "noise"])
+def test_bootstrap_significance_at_2_21_on_the_card(cuda, mode):
+    """The api's bootstrap of a 600,000-sample pair at nfft 2^21 (K4a and
+    K4b or K6 on their radix-2 passes) against the twins on the same draws:
+    the permuted rows, or the noise draws' seeds."""
+    g = _gen(cuda, 3)
+    sig1 = torch.randn(600_000, generator=g, device=cuda)
+    sig2 = torch.randn(600_000, generator=g, device=cuda)
+    nfft = 1 << 21
+    cf.reset_launches()
+    got = tdoa.bootstrap_significance(sig1, sig2, _gen(cuda, 4), 16,
+                                      bootstrap_mode=mode, nfft=nfft)
+    kernel = "bootstrap_peaks" if mode == "permutation" else \
+        "noise_bootstrap_peaks"
+    assert cf.LAUNCHES["fft_real"] == 1 and cf.LAUNCHES[kernel] == 1
+    s1 = cf.fft_real_plain(sig1[None], nfft)[0]
+    if mode == "permutation":
+        rows = tdoa.permuted_rows(sig2, 16, _gen(cuda, 4))
+        peaks = cf.bootstrap_peaks_plain(s1, rows, nfft)
+    else:
+        seeds = torch.randint(-2 ** 31, 2 ** 31, (16, 2),
+                              generator=_gen(cuda, 4), dtype=torch.int32,
+                              device=cuda)
+        peaks = cf.noise_bootstrap_peaks_plain(s1, seeds, 600_000, nfft)
+    want = torch.quantile(peaks, 0.95)
+    torch.cuda.synchronize()
+    assert abs(float(got) - float(want)) < 1e-6
 
 
 def _device_kernels(fn, path, cycles=6):
@@ -386,6 +426,33 @@ def test_options_path_on_the_card_matches_the_cpu_path(cuda):
 
 
 @pytest.mark.cuda
+def test_parity_path_on_the_card_launches_k7_and_matches_the_cpu(
+        cuda, tmp_path, monkeypatch):
+    """Parity mode (lag_mode='reference': the exact-length render, the
+    pre-sync, the 2n - 1 transform, the exact-length bootstrap) with
+    calibration delays on a small off-centre scene whose peaks are clear of
+    their runners-up: on the card it launches K7 and no other kernel, and
+    finds the CPU's TDOAs (1e-6 s) and position (1 mm, float32 LM)."""
+    monkeypatch.chdir(tmp_path)
+    cfg = copy.deepcopy(DEFAULT_CONFIG)
+    cfg.update(fs=8000, duration=0.25, source_position=[0.2, 0.6, 0.4])
+    cfg["localization"].update(lag_mode="reference", num_bootstrap=64,
+                               visualize_correlation=False)
+    calibration = [{"delay": d, "amplitude": 1.0, "snr": 6.0}
+                   for d in (0.001, -0.002, 0.0005, 0.0)]
+    cpu = localize_sound_source(cfg, calibration_data=calibration,
+                                device="cpu", dtype=torch.float64)
+    cf.reset_launches()
+    card = localize_sound_source(cfg, calibration_data=calibration,
+                                 device=cuda, dtype=torch.float32)
+    assert cf.LAUNCHES["whiten"] == 7
+    assert sum(cf.LAUNCHES.values()) == 7, cf.LAUNCHES
+    np.testing.assert_allclose(card["tdoas"], cpu["tdoas"], atol=1e-6)
+    np.testing.assert_allclose(card["estimated_position"],
+                               cpu["estimated_position"], atol=1e-3)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m,paths,total,out,nfft", [
     (4, 22, 50292, 44100, 65536), (3, 5, 3500, 3000, 4096),
     (1, 1, 100, 100, 128)])
@@ -480,7 +547,7 @@ def test_gcc_all_pairs_launches_over_scene_chunks(cuda, monkeypatch):
     monkeypatch.setattr(cf, "_MAX_GRID_Y", 7)
     sig = torch.randn((5, 3, 200), generator=_gen(cuda), device=cuda)
     pi, pj = _pairs(3)
-    for nfft, launches in ((8192, 2), (256, 1)):   # 3 + 2 scenes; one
+    for nfft, launches in ((8192, 3), (256, 1)):   # 2 + 2 + 1 scenes; one
         mask = cf.band_mask(nfft, None, None, device=cuda)
         before = cf.LAUNCHES["gcc_all_pairs"]
         got = cf.gcc_all_pairs(sig, pi, pj, nfft, mask)
@@ -757,6 +824,68 @@ def test_scene_windowed_split_shapes(cuda, scenes, m, paths, total, out,
     assert float((win - w3).abs().max()) < 1e-6
     assert torch.equal(stats[..., 2], s3[..., 2])
     assert float((stats - s3).abs().max()) < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,paths,total,out,nfft,wq", [
+    (4, 2, 1800, 1500, 2048, 3), (3, 2, 7000, 6000, 8192, 2),
+    (4, 1, 44356, 44100, 65536, 6)])
+def test_scene_kernels_across_scene_chunks(cuda, monkeypatch, m, paths,
+                                           total, out, nfft, wq):
+    """K3, K2 and K5 with the grid limit lowered so that 5 scenes cross
+    it (chunks of 2, 2 and 1 at 3 and 4 mics): each launches once a chunk,
+    against its twin, and K5 equals K3 then K2 to the bit; the chunks
+    equal one launch over every scene (even chunks pack rows as one launch
+    does)."""
+    base, tau, gains, snr, seeds, fade = _scene_inputs(cuda, 5, m, paths,
+                                                       total, out)
+    pi, pj = _pairs(m)
+    mask = cf.band_mask(nfft, (300.0, 3400.0), 16000.0, device=cuda)
+
+    def run():
+        sigs = cf.delay_sum(base, tau, gains, nfft, out, fade, True, snr,
+                            seeds)
+        return (sigs, cf.gcc_windowed(sigs, pi, pj, nfft, wq, mask),
+                cf.scene_windowed(base, tau, gains, pi, pj, nfft, out, wq,
+                                  fade, mask, snr, seeds))
+
+    whole = run()
+    monkeypatch.setattr(cf, "_MAX_GRID_Y", 7)
+    assert cf.scene_chunk(5, m, len(pi)) == 2
+    cf.reset_launches()
+    sigs, split, fused = run()
+    assert cf.LAUNCHES["delay_sum"] == 3 and cf.LAUNCHES["gcc_windowed"] == 3
+    assert cf.LAUNCHES["scene_windowed"] == 3
+    want_sigs = cf.delay_sum_plain(base, tau, gains, nfft, out, fade, True,
+                                   snr, seeds)
+    want_win, want_stats = cf.gcc_windowed_plain(sigs, pi, pj, nfft, wq, mask)
+    torch.cuda.synchronize()
+    assert float((sigs - want_sigs).abs().max()) < 2e-5
+    assert float((split[0] - want_win).abs().max()) < 1e-6
+    assert torch.equal(split[1][..., 2], want_stats[..., 2])
+    assert all(torch.equal(a, b) for a, b in zip(fused, split))
+    assert torch.equal(sigs, whole[0])
+    assert all(torch.equal(a, b) for a, b in zip(split, whole[1]))
+    assert all(torch.equal(a, b) for a, b in zip(fused, whole[2]))
+
+
+@pytest.mark.cuda
+def test_sweep_across_the_chunk_boundary_on_the_card(cuda):
+    """21,846 scenes at 4 mics (nfft 512): one past the 65,535 / 3 couples
+    of one launch.  The fused path launches K5 twice, the split path K3
+    and K2 twice each, over the same chunks, and the two agree to the bit
+    scene by scene."""
+    spec = SweepSpec(fs=8000.0, duration=0.05)
+    scenes = 21_846
+    cf.reset_launches()
+    fused = run_scene(spec, 9, scenes, device=cuda)
+    assert cf.LAUNCHES["scene_windowed"] == 2
+    split = sweep._run_scenes(spec, _gen(cuda, 9), scenes, torch.float32,
+                              False)
+    assert cf.LAUNCHES["delay_sum"] == 2 and cf.LAUNCHES["gcc_windowed"] == 2
+    assert torch.equal(fused.tdoas, split.tdoas)
+    assert torch.equal(fused.estimate, split.estimate)
+    assert bool(torch.isfinite(fused.estimate).all())
 
 
 _SPEC = SweepSpec(fs=16000.0, duration=0.1, signal_type="noise",

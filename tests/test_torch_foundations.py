@@ -85,7 +85,7 @@ def test_noise_signal_needs_generator_and_is_seeded():
     b = tsig.generate_signal("noise", 8000.0, 0.1, 1.0,
                              generator=torch.Generator().manual_seed(3))
     assert a.shape == (800,) and torch.equal(a, b)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="Generator"):
         tsig.generate_signal("speech", 8000.0, 0.1, 1.0)
 
 
@@ -167,10 +167,11 @@ def test_fade_window_and_delay_and_sum_match_jax(rng):
                                    torch.from_numpy(gains), fs,
                                    apply_fade=fade)
         _close(got, want)
-    with pytest.raises(NotImplementedError):
+    # The other pad modes: tests/test_torch_parity.py.
+    with pytest.raises(ValueError, match="pad_mode"):
         tdelay.delay_and_sum(torch.from_numpy(base),
                              torch.from_numpy(delays),
-                             torch.from_numpy(gains), fs, pad_mode="exact")
+                             torch.from_numpy(gains), fs, pad_mode="bogus")
 
 
 def test_port_imports_without_jax():

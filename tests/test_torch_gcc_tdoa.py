@@ -117,10 +117,18 @@ def test_time_delays_from_corr_matches_jax(src, max_delay):
                                rtol=0, atol=1e-12)
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
     _close(got.corr, want.corr)
-    with pytest.raises(NotImplementedError, match="parity"):
-        ttdoa.time_delays_from_corr(torch.from_numpy(corr), 2000, 2000, FS,
-                                    max_expected_delay=max_delay,
-                                    lag_mode="reference")
+    # Parity mode on the same correlations: the reference lag axis, no
+    # centring, plateau peaks, the exact median (delays equal to rounding).
+    want = jtdoa.time_delays_from_corr(
+        jnp.asarray(corr), 2000, 2000, FS, threshold_method="median",
+        max_expected_delay=max_delay, lag_mode="reference")
+    got = ttdoa.time_delays_from_corr(
+        torch.from_numpy(corr), 2000, 2000, FS, threshold_method="median",
+        max_expected_delay=max_delay, lag_mode="reference")
+    np.testing.assert_allclose(got.delays.numpy(), np.asarray(want.delays),
+                               rtol=0, atol=1e-12)
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    _close(got.corr, want.corr)
 
 
 def test_peak_selection_matches_jax(rng):

@@ -392,7 +392,7 @@ CALIBRATION = [{"delay": d, "snr": 30.0}
 
 @pytest.mark.parametrize("name", sorted(OPTION_SETS))
 @pytest.mark.parametrize("scene", ["off_centre", "demo"])
-def test_options_match_jax_end_to_end(monkeypatch, name, scene):
+def test_options_match_jax_end_to_end(monkeypatch, tmp_path, name, scene):
     """Identical TDOAs and positions within 1e-6 m (float64); the no-gate
     set also carries calibration delays.  The nulls draw from different
     generators, so 'significant' is compared only where the peak is clear
@@ -400,6 +400,7 @@ def test_options_match_jax_end_to_end(monkeypatch, name, scene):
     a few per cent of each other, test_torch_noise_bootstrap)."""
     src, kind = (((0.2, 0.6, 0.4), "chirp") if scene == "off_centre"
                  else ((0.5, 0.5, 0.5), "sine"))
+    monkeypatch.chdir(tmp_path)   # visualize_correlation saves figures
     cfg = _config(src, kind, visualize_correlation=True, **OPTION_SETS[name])
     calib = CALIBRATION if name == "no_gate" else None
     null = ttdoa.bootstrap_significance

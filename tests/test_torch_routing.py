@@ -1,0 +1,222 @@
+"""Which kernel launches a path reaches, and with which schedule, checked on
+the CPU: the wrappers' CUDA branch is forced (``cuda_fft._use_plain``
+returns False), the kernel library is a stub, and every launch through
+``cuda_fft._launch`` is recorded with its arguments instead of run.  The
+outputs are left as allocated, so these tests read the launches only.
+
+They hold K4a's radix-2 passes above 2^20, the row chunks of K4a, K4b, K6
+and K9, the scene chunks of K2, K3 and K5 at the sweep's 65,535 grid
+limit, and the exact-length parity path (K7 only).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from pyaudiolocalization_tpu_torch.models import tdoa as ttdoa
+from pyaudiolocalization_tpu_torch.ops import cuda_fft as cf
+from pyaudiolocalization_tpu_torch.parallel import sweep as tsw
+
+
+class _StubLibrary:
+    """Any ``palt_*`` entry; never called (``_launch`` is stubbed)."""
+
+    def __getattr__(self, name):
+        return name
+
+
+@pytest.fixture
+def launches(monkeypatch):
+    """(name, args) of every launch, in order, with the CUDA branch forced
+    on CPU tensors and scratch buffers shrunk to a stub."""
+    calls = []
+
+    def launch(name, device, entry, *args):
+        cf.LAUNCHES[name] += 1
+        calls.append((name, args))
+
+    monkeypatch.setattr(cf, "_use_plain", lambda *tensors: False)
+    monkeypatch.setattr(cf, "_library", _StubLibrary)
+    monkeypatch.setattr(cf, "_launch", launch)
+    monkeypatch.setattr(cf, "_scratch", lambda rows, nfft, device:
+                        torch.empty((1, 1, 2), device=device))
+    cf.reset_launches()
+    yield calls
+    cf.reset_launches()
+
+
+def _named(calls, name):
+    return [args for n, args in calls if n == name]
+
+
+# ---------------------------------------------------------------------------
+# K4a above 2^20
+# ---------------------------------------------------------------------------
+
+def test_spectrum_above_2_20_launches_k4a_on_the_radix2_passes(launches):
+    """sig1's spectrum at nfft 2^21 (the bootstrap of a 23.7 s recording at
+    44.1 kHz) reaches one K4a launch with n1 = 0, the passes."""
+    sig = torch.zeros(1_046_019)
+    spec = ttdoa._spectrum(sig, 1 << 21)
+    assert spec.shape == ((1 << 20) + 1,) and spec.dtype == torch.complex64
+    (args,) = _named(launches, "fft_real")
+    rows, length, nfft, n1 = args[1:5]
+    assert (rows, length, nfft, n1) == (1, 1_046_019, 1 << 21, 0)
+    assert [n for n, _ in launches] == ["fft_real"]
+
+
+@pytest.mark.parametrize("mode,kernel", [("permutation", "bootstrap_peaks"),
+                                         ("noise", "noise_bootstrap_peaks")])
+def test_bootstrap_at_2_21_runs_both_nulls_on_the_passes(launches, mode,
+                                                         kernel):
+    """bootstrap_significance at nfft 2^21 with each null: K4a and K4b (or
+    K6) on their radix-2 passes, no ValueError."""
+    gen = torch.Generator().manual_seed(0)
+    sig1 = torch.randn(600_000, generator=gen)
+    sig2 = torch.randn(600_000, generator=gen)
+    ttdoa.bootstrap_significance(sig1, sig2, gen, num_bootstrap=4,
+                                 bootstrap_mode=mode, nfft=1 << 21)
+    assert [n for n, _ in launches] == ["fft_real", kernel]
+    assert _named(launches, "fft_real")[0][4] == 0
+    (args,) = _named(launches, kernel)
+    # (.., rows, length or n_samp, nfft, n1, ..)
+    assert args[2:6] == (4, 600_000, 1 << 21, 0)
+
+
+@pytest.mark.parametrize("nfft,n1", [(4096, 1), (1 << 16, 256), (1 << 20, 1024),
+                                     (1 << 21, 0), (1 << 22, 0)])
+def test_fft_real_schedule_by_length(launches, nfft, n1):
+    cf.fft_real(torch.zeros(2, 100), nfft)
+    (args,) = _named(launches, "fft_real")
+    assert args[3:5] == (nfft, n1)
+
+
+# ---------------------------------------------------------------------------
+# Row chunks: K4a, K4b, K6 and K9 beyond 65,535 packed rows
+# ---------------------------------------------------------------------------
+
+def _row_counts(calls, name, index):
+    return [args[index] for args in _named(calls, name)]
+
+
+def test_row_kernels_launch_in_chunks_beyond_the_grid(launches):
+    rows = cf.ROW_CHUNK + 3
+    assert cf.ROW_CHUNK == 131_070 and cf.ROW_CHUNK % 2 == 0
+    x = torch.zeros(rows, 8)
+    spec = cf.fft_real(x, 64)
+    assert spec.shape == (rows, 33)
+    assert _row_counts(launches, "fft_real", 1) == [cf.ROW_CHUNK, 3]
+    s1 = torch.zeros(33, dtype=torch.complex64)
+    assert cf.bootstrap_peaks(s1, x, 64).shape == (rows,)
+    assert _row_counts(launches, "bootstrap_peaks", 2) == [cf.ROW_CHUNK, 3]
+    seeds = torch.zeros(rows, 2, dtype=torch.int32)
+    assert cf.noise_bootstrap_peaks(s1, seeds, 8, 64).shape == (rows,)
+    assert _row_counts(launches, "noise_bootstrap_peaks", 2) == [
+        cf.ROW_CHUNK, 3]
+    a = torch.zeros(rows, 33, dtype=torch.complex64)
+    mask = torch.ones(33)
+    assert cf.whitened_corr(a, a, mask, 64).shape == (rows, 64)
+    assert _row_counts(launches, "whitened_corr", 2) == [cf.ROW_CHUNK, 3]
+    # Each chunk's rows and outputs start where the previous chunk ended.
+    first, second = _named(launches, "fft_real")
+    assert second[0] - first[0] == cf.ROW_CHUNK * 8 * 4
+    assert second[-1] - first[-1] == cf.ROW_CHUNK * 33 * 8
+
+
+# ---------------------------------------------------------------------------
+# Scene chunks: K2, K3 and K5 at the sweep's grid limit
+# ---------------------------------------------------------------------------
+
+SPEC = tsw.SweepSpec(fs=8000.0, duration=0.05)
+CAP_SCENES = 21_846     # one past 65,535 / 3 couples at 4 mics
+
+
+class _Reached(Exception):
+    pass
+
+
+def _stop(*args, **kwargs):
+    raise _Reached
+
+
+def test_sweep_across_the_chunk_boundary_launches_each_stage_per_chunk(
+        launches, monkeypatch):
+    """21,846 scenes at 4 mics (nfft 512): the fused path launches K5 once
+    per chunk, the split path K3 and K2 once per chunk, over the same
+    chunks (21,844 + 2 scenes) and the same scene offsets."""
+    assert SPEC.nfft == 512 and tsw._mono_scene_eligible(SPEC)
+    assert cf.scene_chunk(CAP_SCENES, 4, 6) == 21_844
+    monkeypatch.setattr(tsw, "_solve_from_window", _stop)
+    for fused in (True, False):
+        gen = torch.Generator().manual_seed(3)
+        with pytest.raises(_Reached):
+            tsw._run_scenes(SPEC, gen, CAP_SCENES, torch.float32, fused)
+    k5 = _named(launches, "scene_windowed")
+    k3 = _named(launches, "delay_sum")
+    k2 = _named(launches, "gcc_windowed")
+    assert [a[1] for a in k5] == [21_844, 2]
+    assert [a[1] for a in k3] == [21_844, 2]
+    assert [a[1] for a in k2] == [21_844, 2]
+    # Scene 21,844's base row, delays and seeds in the second chunk.
+    for args in (k5, k3):
+        assert args[1][0] - args[0][0] == 21_844 * SPEC.total_samples * 4
+        assert args[1][3] - args[0][3] == 21_844 * 4 * 1 * 4
+    # The outputs: K2's and K5's windows and statistics, K3's signals.
+    assert k5[1][-2] - k5[0][-2] == k2[1][-2] - k2[0][-2]
+    assert k5[1][-1] - k5[0][-1] == 21_844 * 6 * 3 * 4
+    assert k3[1][-1] - k3[0][-1] == 21_844 * 4 * SPEC.num_samples * 4
+    assert k2[1][0] - k2[0][0] == 21_844 * 4 * SPEC.num_samples * 4
+
+
+@pytest.mark.parametrize("scenes,chunks", [(21_845, [21_845]),
+                                           (43_690, [21_844, 21_844, 2])])
+def test_scene_wrappers_chunk_by_one_rule(launches, scenes, chunks):
+    """K2, K3 and K5 called directly split a batch into the same chunks."""
+    nfft, out, wq = 256, 200, 1
+    pi, pj = tsw._pairs(4)
+    base = torch.zeros(scenes, 220)
+    tau = torch.zeros(scenes, 4, 1)
+    gains = torch.ones(scenes, 4, 1)
+    fade = torch.ones(out)
+    mask = torch.ones(nfft // 2 + 1)
+    snr = torch.zeros(scenes)
+    seeds = torch.zeros(scenes, 2, dtype=torch.int32)
+    cf.delay_sum(base, tau, gains, nfft, out, fade, True, snr, seeds)
+    cf.gcc_windowed(torch.zeros(scenes, 4, out), pi, pj, nfft, wq, mask)
+    cf.scene_windowed(base, tau, gains, pi, pj, nfft, out, wq, fade, mask,
+                      snr, seeds)
+    for name in ("delay_sum", "gcc_windowed", "scene_windowed"):
+        assert [a[1] for a in _named(launches, name)] == chunks, name
+
+
+# ---------------------------------------------------------------------------
+# Parity mode at its exact length: K7 only
+# ---------------------------------------------------------------------------
+
+def test_exact_length_parity_run_reaches_k7_and_no_power_of_two_kernel(
+        launches, tmp_path, monkeypatch):
+    """localize_sound_source in parity mode (the reference's exact-length
+    render, the pre-sync, the 2n - 1 transform, the bootstrap at that
+    length) with calibration delays, float32 as on the card: the GCC's and
+    the bootstrap's whitening go through K7, and nothing reaches K1, K3,
+    K4a or K4b (or any other kernel).  The stubbed K7 leaves its input
+    in place, so the numbers are not checked here."""
+    import copy
+
+    import pyaudiolocalization_tpu_torch as tpkg
+    monkeypatch.chdir(tmp_path)
+    cfg = copy.deepcopy(tpkg.DEFAULT_CONFIG)
+    cfg.update(fs=8000, duration=0.25, source_position=[0.2, 0.6, 0.4])
+    cfg["localization"].update(lag_mode="reference", num_bootstrap=40,
+                               visualize_correlation=False)
+    calibration = [{"delay": d, "amplitude": 1.0, "snr": 6.0}
+                   for d in (0.001, -0.002, 0.0005, 0.0)]
+    tpkg.localize_sound_source(cfg, calibration_data=calibration,
+                               device="cpu", dtype=torch.float32)
+    names = {n for n, _ in launches}
+    assert names == {"whiten"}
+    # One launch for the six pairs' cross-spectra, then one a chunk of
+    # each pair's 40 resampled rows.
+    assert cf.LAUNCHES["whiten"] == 1 + 6

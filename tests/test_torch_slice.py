@@ -68,7 +68,8 @@ def test_slice_matches_jax_end_to_end(source, signal_type):
     assert got["correlation_matrix"] is None
 
 
-def test_slice_defaults_to_cpu_and_is_seeded():
+def test_slice_defaults_to_cpu_and_is_seeded(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)   # visualize_correlation saves figures
     cfg = _config()
     a = tpkg.localize_sound_source(cfg, device="cpu")
     b = tpkg.localize_sound_source(cfg, device="cpu")
@@ -82,8 +83,7 @@ def test_slice_defaults_to_cpu_and_is_seeded():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("lag_mode", "reference"), ("sync_mode", "reference"),
-    ("absorption_mode", "per-bin"), ("signal_type", "speech"),
+    ("absorption_mode", "per-bin"),
     ("solver", "beam"), ("solver", "music"), ("solver", "capon")])
 def test_modes_outside_the_slice_raise(key, value):
     cfg = _config()
@@ -95,8 +95,6 @@ def test_modes_outside_the_slice_raise(key, value):
 
 def test_api_refusals():
     cfg = _config()
-    with pytest.raises(NotImplementedError):
-        tpkg.localize_sound_source(cfg, device="cpu", show_plots=True)
     per_bin = dict(cfg, absorption_mode="per-bin")
     with pytest.raises(NotImplementedError, match="per-bin"):
         tpkg.localize_sound_source(per_bin, device="cpu")
@@ -106,11 +104,12 @@ def test_api_refusals():
 
 
 @pytest.mark.parametrize("argv", [
-    [], ["--physical"], ["--physical", "--no-calibration"],
-    ["--no-calibration", "--no-plots"],
-    ["--physical", "--no-calibration", "--no-plots", "--solver", "beam"]])
+    ["--physical", "--no-calibration", "--no-plots", "--solver", "beam"],
+    ["--solver", "music"], ["--no-plots", "--solver", "capon"]])
 def test_demo_requires_the_physical_path(argv):
-    with pytest.raises(SystemExit, match="physical|not ported"):
+    """The demo runs every mode but the narrowband solvers, which it
+    refuses before any work."""
+    with pytest.raises(SystemExit, match="not ported"):
         tmain.main(argv + ["--device", "cpu"])
 
 

@@ -99,14 +99,22 @@ def test_gcc_phat_over_leading_axes_equals_per_scene_calls():
             assert torch.equal(got[a, b], one)
 
 
-@pytest.mark.parametrize("scenes,mics,couples,want", [
-    (256, 4, 3, 256), (10000, 8, 14, 65535 // 14),
-    (200000, 2, 1, 65535), (70000, 3, 1, 2 * 65535 // 3)])
-def test_scene_chunk_keeps_every_grid_within_its_limit(scenes, mics, couples,
-                                                       want):
-    chunk = cf.scene_chunk(scenes, mics, couples)
+@pytest.mark.parametrize("scenes,mics,num_pairs,want", [
+    (256, 4, 6, 256), (10000, 8, 28, 65535 // 14 - 1),
+    (200000, 2, 1, 65534), (70000, 3, 3, 32766),
+    (21845, 4, 6, 21845), (21846, 4, 6, 21844), (21846, 4, 0, 21844),
+    (5000, 8, 0, 4680), (100, 3, 40, 100), (70000, 3, 40, 3276)])
+def test_scene_chunk_keeps_every_grid_within_its_limit(scenes, mics,
+                                                       num_pairs, want):
+    """One chunk rule for K1, K2, K3 and K5: the couples of the larger of
+    the given pairs and all M (M - 1) / 2 pairs (K3 passes none), every
+    grid's y extent within 65,535, and an even chunk short of the batch."""
+    chunk = cf.scene_chunk(scenes, mics, num_pairs)
     assert chunk == want
+    couples = (max(num_pairs, mics * (mics - 1) // 2) + 1) // 2
     assert (chunk * mics + 1) // 2 <= 65535 and chunk * couples <= 65535
+    assert (chunk + 1) // 2 <= 65535 and chunk <= 65535
+    assert chunk == scenes or chunk % 2 == 0
 
 
 # ---------------------------------------------------------------------------

@@ -144,9 +144,16 @@ def test_get_time_delays_phat_matches_jax(rng, nfft, threshold):
     np.testing.assert_allclose(got.time_lags.numpy(),
                                np.asarray(want.time_lags), rtol=0, atol=1e-15)
     assert abs(float(got.delays[0]) * FS + 13) < 1e-9
-    with pytest.raises(NotImplementedError, match="parity"):
-        ttdoa.get_time_delays_phat(torch.from_numpy(a), torch.from_numpy(b),
-                                   FS)
+    # The default lag mode is the reference's (parity mode): the same
+    # delays as the JAX package's default, to rounding.
+    want = jtdoa.get_time_delays_phat(jnp.asarray(a), jnp.asarray(b), FS,
+                                      threshold_method=threshold, nfft=nfft)
+    got = ttdoa.get_time_delays_phat(torch.from_numpy(a), torch.from_numpy(b),
+                                     FS, threshold_method=threshold,
+                                     nfft=nfft)
+    np.testing.assert_allclose(got.delays.numpy(), np.asarray(want.delays),
+                               rtol=0, atol=1e-12)
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
 
 
 @pytest.mark.parametrize("n", [1024, 1023, 3000])
