@@ -2,7 +2,8 @@
 """Quickest proof that the PyTorch port runs on an NVIDIA GPU.
 
 Drives the port's main paths on ``cuda`` at full width (4 mics, 44.1 kHz,
-1 s, nfft 65,536), in eight phases:
+1 s, nfft 65,536; the narrowband trio's 8-mic cube at 16 kHz x 0.25 s),
+in nine phases:
 
 1. device report (``nvidia-smi`` name and power limit);
 2. build of the kernels from ``pyaudiolocalization_tpu_torch/csrc``;
@@ -87,7 +88,26 @@ Drives the port's main paths on ``cuda`` at full width (4 mics, 44.1 kHz,
    the same way; ``python -m pyaudiolocalization_tpu_torch --no-plots``
    in-process.  Sync shifts, TDOAs where each pair's peak is clear of
    its runner-up (a near-tie's flip is reported), the position (or the
-   DE cost) and ``significant`` away from the threshold.
+   DE cost) and ``significant`` away from the threshold;
+9. the narrowband solvers, per-bin absorption and the sweep's remaining
+   modes, against ``tests/data/torch_narrowband_golden.json``
+   (``narrowband_phase``): ``localize_sound_source`` with ``solver`` 'beam',
+   'music' and 'capon' on the demo and off-centre scenes, cold and warm
+   (K3, K1, K4a, K4b; no K2 or K5), the fix within 2 mm (MUSIC 15 mm) of
+   the golden where its coarse map is clear, the jackknife std within a
+   factor of 2; ``python -m pyaudiolocalization_tpu_torch --solver music
+   --no-plots`` in-process; per-bin absorption on the demo scene and on
+   the off-centre scene with physically scaled coefficients (K1, K4a,
+   K4b, no K3: the per-bin render is plain torch, as in the JAX package);
+   the narrowband trio sweeps (512 scenes each, 800 Hz on the 8-mic cube)
+   and the two-tone sweeps (128, 'music' and 'capon'), K3 alone, their
+   statistics against the JAX sweep's; ``localize_batch`` on 32 tone
+   scenes a solver (no kernel) against the JAX answers; ``lm-robust`` and
+   ``de`` fused (K5) against split (K3 then K2) on the same draws, and
+   Wiener on the split (K3, K2); warm scenes/s, device idle shares, peak
+   memory and stage breakdowns (the api's, each trio sweep's, DE's
+   generations), each beside the card's name and power limit.  Phase 3
+   adds K3 at the trio sweep's shape.
 
 Every path runs with the launch counts set to 0 just before it and read
 just after; each must have launched its kernels.  Any failure raises, and
@@ -115,6 +135,7 @@ SWEEP_GOLDEN = REPO / "tests" / "data" / "torch_sweep_golden.json"
 OPTIONS_GOLDEN = REPO / "tests" / "data" / "torch_options_golden.json"
 SRP_GOLDEN = REPO / "tests" / "data" / "torch_srp_golden.json"
 PARITY_GOLDEN = REPO / "tests" / "data" / "torch_parity_golden.json"
+NB_GOLDEN = REPO / "tests" / "data" / "torch_narrowband_golden.json"
 FS = 44100.0
 NFFT = 65536
 N = 44100
@@ -140,13 +161,16 @@ ADDED = {("delay_sum", "odd"): 1, ("gcc_windowed", "odd"): 1,
          ("scene_windowed", "odd"): 1, ("gcc_all_pairs", "passes"): 2,
          ("whitened_corr", "no_gate"): 2, ("fft_real", "long"): 3,
          ("whiten", "boot"): 3, ("delay_sum", "chunks"): 3,
-         ("gcc_windowed", "chunks"): 3, ("scene_windowed", "chunks"): 3}
+         ("gcc_windowed", "chunks"): 3, ("scene_windowed", "chunks"): 3,
+         ("delay_sum", "narrowband"): 4}
 # The sweep across K2's, K3's and K5's scene-chunk boundary: one scene past
 # the 65,535 grid rows of one launch at 4 mics (3 couples), at nfft 512.
 CHUNK_SCENES = 21846
 LONG_NFFT = 1 << 21       # above K4a's largest four-step split (2^20)
 LONG_SAMPLES = 1046019    # 23.7 s at 44.1 kHz: the api's nfft passes 2^20
 LONG_DRAWS = 64
+# The card's name and power limit (nvidia-smi), set by main().
+CARD = ["not read"]
 
 # name -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -315,6 +339,7 @@ def kernel_phase(cf, torch):
 
     results = {}
     reverb, multi = srp_specs()
+    trio = _spec(json.loads(NB_GOLDEN.read_text())["trio/beam"]["spec"])
     # K3: render.  Main paths: the sweep's split render (512 scenes, 1
     # path, noise, 44,356 padded samples), the single scene's (22 paths =
     # direct + 21 image sources of 3 planes at order 3, 50,292 padded
@@ -334,8 +359,10 @@ def kernel_phase(cf, torch):
                       False, False),
             "odd": (3, 3, 5, 7000, 6000, 8192, True, True),
             "edge": (3, 3, 5, 3500, 3000, 4096, True, True),
-            "chunks": (CHUNK_SCENES, 4, 1, 448, 400, 512, True,
-                       True)}.items():
+            "chunks": (CHUNK_SCENES, 4, 1, 448, 400, 512, True, True),
+            "narrowband": (SWEEP_SCENES, 8, 1, trio.total_samples,
+                           trio.num_samples, next_pow2(trio.total_samples),
+                           True, True)}.items():
         draw("delay_sum", tag)
         base, tau, gains, snr, seeds, fade = scene_inputs(b, m, paths,
                                                           total, out)
@@ -351,7 +378,7 @@ def kernel_phase(cf, torch):
                                        fin, *nz),
             tol=2e-5, reps=3 if b > 1 else 20, scale_by_max=not fin,
             least=bound(nbytes, render_ops(b, m, paths, nfft, out, noise)))
-        if tag in ("main", "scene", "reverb"):
+        if tag in ("main", "scene", "reverb", "narrowband"):
             log_device(f"delay_sum[{tag}]",
                        lambda: cf.delay_sum(base, tau, gains, nfft, out,
                                             fade, fin, *nz))
@@ -1159,7 +1186,7 @@ def sweep_stages(torch, sw, spec):
         return cf.scene_windowed(
             padded, (paths.delays * spec.fs).contiguous(),
             paths.gains.contiguous(), pi, pj, spec.nfft, spec.num_samples,
-            wq, fade, sw._band_mask(spec, base),
+            wq, fade, sw._band_mask(spec, (spec.lowcut, spec.highcut), base),
             snr_db=snr.contiguous(), seeds=seeds)
 
     win, stats = stage("K5 scene_windowed", k5)
@@ -1361,7 +1388,8 @@ def srp_sweep_stages(torch, sw, spec):
     sigs = stage("K3 delay_sum", lambda: render_scene(
         base[:, 0], paths.delays, paths.gains, spec.fs, spec.total_samples,
         n, finalize=True, snr_db=snr, noise_seeds=seeds))
-    corr = stage("K1 gcc_all_pairs", lambda: sw._correlate(spec, sigs))
+    corr = stage("K1 gcc_all_pairs", lambda: sw._correlate(
+        spec, sigs, (spec.lowcut, spec.highcut)))
     td = stage("TDOA ladder", lambda: -tdoa_ops.time_delays_from_corr(
         corr, n, n, spec.fs, threshold_method=spec.threshold_method,
         max_expected_delay=spec.max_tdoa).delays[..., 0])
@@ -1740,6 +1768,506 @@ def parity_phase(cf, torch, parity_golden, launches):
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: the narrowband solvers, per-bin absorption, the sweep's modes
+# ---------------------------------------------------------------------------
+
+NB_FORBID = ("gcc_windowed", "scene_windowed")
+# The sweep's render of tones and the narrowband search: K3 only.
+NB_SWEEP_FORBID = ("gcc_all_pairs", "gcc_windowed", "scene_windowed")
+PRODUCTION = tuple(k for k in KERNELS if k not in ("row_dft", "row_stages",
+                                                   "lane_dft"))
+# Position tolerances against the golden: the float32 eigh of cuSOLVER
+# bounds MUSIC's fine stage near 1 cm (EVALUATION.md "Narrowband trio").
+NB_POS_TOL = {"beam": 2e-3, "music": 15e-3, "capon": 2e-3}
+
+
+def card_note():
+    """The card's name and power limit, beside every number logged."""
+    return f"[{CARD[0]}]"
+
+
+def idle_share(torch, bench, fn):
+    """(wall ms, device ms, idle share) of one warm call of ``fn``: the
+    device's kernel time (``torch.profiler``) against the host's wall
+    clock around the same call."""
+    dev = bench.device_ms(fn, 1)
+    _, wall = _wall(torch, fn)
+    wall_ms = wall * 1e3
+    return wall_ms, dev["total"], 1.0 - dev["total"] / wall_ms
+
+
+def check_nb_fix(name, solver, est, want, margin):
+    """A narrowband fix against the golden: within NB_POS_TOL where the
+    golden coarse map's top is clear of its runner-up (CLEAR_MARGIN);
+    a near-tie is reported, not held."""
+    gap = sum((float(a) - b) ** 2 for a, b in zip(est, want)) ** 0.5
+    clear = margin > CLEAR_MARGIN
+    log(f"{name}: position {[round(float(v), 5) for v in est]} (golden "
+        f"delta {gap:.2e} m, coarse margin {margin:.2e}"
+        f"{'' if clear else ': a near-tie, not held'})")
+    if not all(math.isfinite(float(v)) for v in est):
+        raise AssertionError(f"{name}: non-finite fix")
+    if clear and gap > NB_POS_TOL[solver]:
+        raise AssertionError(f"{name}: position {list(est)} vs golden "
+                             f"{want}")
+    return gap
+
+
+def api_nb_stages(torch, solver, cfg):
+    """Warm stage breakdown of one narrowband localize_sound_source call
+    (the demo scene, the second of two passes; each stage timed with a
+    synchronize on both sides), and the same scene's per-bin render with
+    the material table's frequency coefficients scaled to 1e-5 of the
+    reference's (physically scaled)."""
+    from pyaudiolocalization_tpu_torch import api
+    from pyaudiolocalization_tpu_torch.models import simulator, tdoa
+    from pyaudiolocalization_tpu_torch.ops import filters, gccphat
+    from pyaudiolocalization_tpu_torch.utils.config import SceneConfig
+    scene = SceneConfig.from_dict(cfg)
+    loc = scene.localization
+    c = api.acoustics.speed_of_sound_host(scene.celsius, scene.humidity)
+    pi = [p[0] for p in scene.mic_pairs]
+    pj = [p[1] for p in scene.mic_pairs]
+    f32 = torch.float32
+    mics = torch.as_tensor(scene.mic_positions, dtype=f32, device="cuda")
+    blo, bhi, _, _ = api._srp_grid_knobs(scene, loc, scene.fs, c)
+    band = api._resolve_phat_band(loc)
+    for _ in range(2):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        times = {}
+
+        def stage(name, fn):
+            out, seconds = _wall(torch, fn)
+            times[name] = seconds * 1e3
+            return out
+
+        sigs = stage("render (K3)", lambda: simulator.simulate_signals_fast(
+            scene.source_position, scene.mic_positions, scene.fs, c,
+            scene.duration, scene.signal_type, scene.freq,
+            scene.plane_coeffs, scene.plane_material_ids,
+            scene.materials.absorption, scene.materials.freq,
+            loc.max_reflections, loc.absorption_threshold, generator=gen,
+            dtype=f32, device="cuda"))
+        n = sigs.shape[-1]
+        nfft = api._physical_nfft(n, scene.fs, loc.max_expected_delay)
+        filtered = stage("Butterworth", lambda: filters.noise_reduction(
+            sigs, scene.fs, method=loc.filter_method))
+        corr = stage("GCC (K1)", lambda: gccphat.gcc_phat_all_pairs(
+            filtered, pi, pj, nfft=nfft, band=band, fs=scene.fs))
+        stage("TDOA ladder", lambda: tdoa.time_delays_from_corr(
+            corr, n, n, scene.fs, max_expected_delay=loc.max_expected_delay))
+        stage(f"6 nulls x {loc.num_bootstrap} (K4a, K4b)", lambda: [
+            tdoa.bootstrap_significance(filtered[i], filtered[j], gen,
+                                        loc.num_bootstrap, nfft=nfft)
+            for i, j in zip(pi, pj)])
+        locate = api.narrowband_locate(solver, mics, scene.fs, c, band, nfft)
+        lower, upper = (torch.as_tensor(b, dtype=f32, device="cuda")
+                        for b in (blo, bhi))
+        fix = stage(f"{solver} fix (two-stage search)",
+                    lambda: locate(filtered, lower, upper))
+        stage("jackknife (4 chunks, 4 searches)",
+              lambda: api.uncertainty_ops.group_jackknife_covariance(
+                  filtered, lambda s, lo, hi: locate(s, lo, hi).position,
+                  fix.position, 0.12 * (upper - lower)))
+        per_bin = stage("per-bin render (plain torch, the same scene)",
+                        lambda: simulator.simulate_signals_fast(
+                            scene.source_position, scene.mic_positions,
+                            scene.fs, c, scene.duration, scene.signal_type,
+                            scene.freq, scene.plane_coeffs,
+                            scene.plane_material_ids,
+                            scene.materials.absorption,
+                            scene.materials.freq * 1e-5,
+                            loc.max_reflections, loc.absorption_threshold,
+                            generator=gen, dtype=f32, device="cuda",
+                            absorption_mode="per-bin"))
+        if not bool(torch.isfinite(per_bin).all()):
+            raise AssertionError("per-bin render: non-finite samples")
+    total = sum(times.values())
+    for name, ms in times.items():
+        log(f"  api {solver} stage {name}: {ms:.3f} ms "
+            f"({100 * ms / total:.1f} %) {card_note()}")
+    log(f"  api {solver} stages total: {total:.3f} ms (warm) {card_note()}")
+
+
+def nb_sweep_stages(torch, sw, spec):
+    """Warm stage breakdown of one 512-scene narrowband sweep (render, STFT
+    or spectra, bins and refined frequencies, eigh or inverse, coarse and
+    fine maps), over the whole batch at once (not in the sweep's scene
+    chunks); each stage timed with a synchronize on both sides."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    times = {}
+
+    def stage(name, fn):
+        out, seconds = _wall(torch, fn)
+        times[name] = seconds * 1e3
+        return out
+
+    for _ in range(2):     # the second pass is the warm one reported
+        _nb_sweep_pass(torch, sw, spec, gen, stage)
+    total = sum(times.values())
+    for name, ms in times.items():
+        log(f"  {spec.solver} sweep stage {name}: {ms:.3f} ms "
+            f"({100 * ms / total:.1f} %) {card_note()}")
+    log(f"  {spec.solver} sweep stages total: {total:.3f} ms for "
+        f"{SWEEP_SCENES} scenes in one batch, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
+        f"{card_note()}")
+
+
+def _nb_sweep_pass(torch, sw, spec, gen, stage):
+    from pyaudiolocalization_tpu_torch.models import beamformer, capon
+    from pyaudiolocalization_tpu_torch.models import music
+    from pyaudiolocalization_tpu_torch.models import srp as srp_ops
+    from pyaudiolocalization_tpu_torch.models.simulator import render_scene
+    dev = gen.device
+    c = spec.speed_of_sound
+    torch.cuda.reset_peak_memory_stats()
+    sources, mics, snr = stage("draw scenes", lambda: sw._random_scene(
+        spec, gen, SWEEP_SCENES, torch.float32, dev))
+    base, seeds = stage("draw base signals + seeds", lambda: sw._draw_signals(
+        spec, gen, SWEEP_SCENES, torch.float32, dev))
+    paths = stage("paths", lambda: sw._source_paths(spec, sources[:, 0], mics,
+                                                    c))
+    sigs = stage("K3 delay_sum", lambda: render_scene(
+        base[:, 0], paths.delays, paths.gains, spec.fs, spec.total_samples,
+        spec.num_samples, finalize=True, snr_db=snr, noise_seeds=seeds))
+    band = (spec.lowcut, spec.highcut)
+    blo, bhi = sw._srp_box(spec)
+    lower, upper = srp_ops._box(blo, bhi, sigs)
+    if spec.solver == "beam":
+        spectra = stage("spectra (rfft)", lambda: torch.fft.rfft(
+            sigs, n=spec.nfft))
+        idx, w = stage("bin selection", lambda: beamformer.select_bins(
+            spectra, spec.fs, spec.nfft, 12, band))
+
+        def map_fn(p):
+            return beamformer.steered_power_map(spectra, idx, w, p, mics,
+                                                spec.fs, spec.nfft, c)
+    else:
+        snaps = stage("STFT (snapshots)", lambda: music.snapshot_frames(
+            sigs, 256))
+        idx, w = stage("bin selection", lambda: beamformer.select_bins(
+            torch.mean(torch.abs(snaps), -2), spec.fs, 256, 8, band))
+        omega = stage("refined frequencies", lambda: music.refine_bin_freqs(
+            snaps, idx, spec.fs, 256, 128))
+        cov = stage("embedded covariances", lambda: music.embedded_covariances(
+            snaps, idx))
+        if spec.solver == "music":
+            subs = stage("eigh (noise subspaces)", lambda: torch.linalg.eigh(
+                cov)[1][..., :2 * spec.num_mics - 2])
+
+            def map_fn(p):
+                return music.music_map(subs, omega, w, p, mics, c)
+        else:
+            inv = stage("loaded inverse", lambda: capon.loaded_inverse(
+                cov, 1e-3))
+
+            def map_fn(p):
+                return capon.capon_map(inv, omega, w, p, mics, c)
+
+    def coarse():
+        pts = srp_ops._grid_points(lower, upper, srp_ops.COARSE_N)
+        return srp_ops._take_point(pts, torch.argmax(map_fn(pts), -1))
+
+    center = stage("coarse map (24^3)", coarse)
+    stage("fine map (12^3)", lambda: srp_ops._fine_stage(
+        map_fn, center, (upper - lower) / srp_ops.COARSE_N, 12))
+
+
+def de_stages(torch, sw, spec):
+    """Warm stage breakdown of one fused 512-scene 'de' sweep: K5, the
+    windowed ladder, the clustered guesses, the DE generations (counted)
+    and the L-BFGS-B polish."""
+    from pyaudiolocalization_tpu_torch.models import solver as solver_ops
+    from pyaudiolocalization_tpu_torch.models import tdoa as tdoa_ops
+    from pyaudiolocalization_tpu_torch.ops import cuda_fft as cf
+    from pyaudiolocalization_tpu_torch.ops.delay import fade_window
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    c = spec.speed_of_sound
+    dt = torch.float32
+    pi, pj = spec.pairs
+    wq = sw._tdoa_window_wq(spec)
+    times = {}
+
+    def stage(name, fn):
+        out, seconds = _wall(torch, fn)
+        times[name] = seconds * 1e3
+        return out
+
+    sources, mics, snr = stage("draw scenes", lambda: sw._random_scene(
+        spec, gen, SWEEP_SCENES, dt, dev))
+    base, seeds = stage("draw base signals + seeds", lambda: sw._draw_signals(
+        spec, gen, SWEEP_SCENES, dt, dev))
+    paths = sw._source_paths(spec, sources[:, 0], mics, c)
+
+    def k5():
+        padded = torch.zeros((SWEEP_SCENES, spec.total_samples), device=dev)
+        padded[:, :spec.num_samples] = base[:, 0]
+        fade = fade_window(spec.total_samples, dtype=dt,
+                           device=dev)[:spec.num_samples].contiguous()
+        return cf.scene_windowed(
+            padded, (paths.delays * spec.fs).contiguous(),
+            paths.gains.contiguous(), pi, pj, spec.nfft, spec.num_samples,
+            wq, fade, sw._band_mask(spec, (spec.lowcut, spec.highcut), base),
+            snr_db=snr.contiguous(), seeds=seeds)
+
+    win, stats = stage("K5 scene_windowed", k5)
+    td = stage("windowed TDOA ladder", lambda: -tdoa_ops.
+               tdoa_single_from_window(win, stats, wq, spec.nfft, spec.fs,
+                                       spec.max_tdoa))
+    guesses, _ = stage("k-means guesses", lambda: solver_ops.
+                       heuristic_initial_guesses(mics, pi, pj, td, c, gen))
+    lower, upper = solver_ops.dynamic_bounds(mics, td, c)
+    weights = torch.ones_like(td)
+    generations = [0]
+
+    def objective(x):
+        one = x.dim() == 2
+        generations[0] += not one
+        xs = x[:, None] if one else x
+        r = solver_ops.tdoa_residuals(xs, mics[:, None], pi, pj,
+                                      td[:, None], c, weights[:, None])
+        e = torch.sum(r * r, -1)
+        return e[:, 0] if one else e
+
+    de = stage("DE generations", lambda: solver_ops.
+               differential_evolution_batched(
+                   objective, lower, upper, gen, popsize=spec.de_popsize,
+                   maxiter=spec.de_maxiter, init=guesses))
+    stage("L-BFGS-B polish", lambda: solver_ops.lbfgsb_minimize_batched(
+        objective, de.x, lower, upper))
+    total = sum(times.values())
+    for name, ms in times.items():
+        log(f"  de sweep stage {name}: {ms:.3f} ms "
+            f"({100 * ms / total:.1f} %) {card_note()}")
+    log(f"  de sweep: {generations[0] - 1} generations (a host read each), "
+        f"{times['DE generations'] / max(generations[0] - 1, 1):.3f} ms a "
+        f"generation; stages total {total:.3f} ms for {SWEEP_SCENES} scenes "
+        f"{card_note()}")
+
+
+def narrowband_phase(cf, torch, nb_golden, sweep_golden, launches):
+    """Phase 9: the narrowband solvers, per-bin absorption and the sweep's
+    lm-robust, DE and Wiener modes, against
+    tests/data/torch_narrowband_golden.json (module docstring)."""
+    import os
+    import tempfile
+    import warnings
+    from pyaudiolocalization_tpu_torch import DEFAULT_CONFIG
+    from pyaudiolocalization_tpu_torch import __main__ as demo
+    from pyaudiolocalization_tpu_torch import localize_sound_source
+    from pyaudiolocalization_tpu_torch.parallel import sweep as sw
+    from pyaudiolocalization_tpu_torch.utils.config import SceneConfig
+    from pyaudiolocalization_tpu_torch.utils.materials import MaterialTable
+    bench = _load_tool("torch_rowdft_bench")
+    scenes_tool = _load_tool("torch_narrowband_golden")
+    start_phase = time.perf_counter()
+
+    def record(name, fn, expect, forbid):
+        torch.cuda.reset_peak_memory_stats()
+        out, counts = run_path(cf, name, fn, expect, forbid)
+        _add(launches, counts)
+        log(f"  peak device memory on {name}: "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
+            f"{card_note()}")
+        return out
+
+    def timed(cfg, **kw):
+        start = time.perf_counter()
+        res = localize_sound_source(cfg, device="cuda", dtype=torch.float32,
+                                    **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - start
+
+    # (1) localize_sound_source with beam / music / capon, both scenes.
+    def check_api(name, solver, res, want):
+        check_nb_fix(name, solver, res["estimated_position"],
+                     want["estimated_position"], want["coarse_margin"])
+        td_err = max(abs(float(a) - b) for a, b in
+                     zip(res["tdoas"], want["tdoas"]))
+        std = [float(v) for v in res["uncertainty"]["std"]]
+        ratio = max(max(a / b, b / a) for a, b in zip(std, want["std"]))
+        log(f"{name}: max TDOA delta {td_err * FS:.3f} samples, jackknife "
+            f"std {[round(v, 5) for v in std]} (golden "
+            f"{[round(v, 5) for v in want['std']]}, worst ratio "
+            f"{ratio:.3f})")
+        if td_err > 0.05 / FS:
+            raise AssertionError(f"{name}: TDOAs vs golden")
+        if not ratio <= 2.0 or res["uncertainty"]["heuristic"]:
+            raise AssertionError(f"{name}: jackknife std departs from the "
+                                 "golden's by more than a factor of 2")
+
+    for solver in ("beam", "music", "capon"):
+        def api_scenes(solver=solver):
+            for name, cfg in scenes_tool.scene_configs(DEFAULT_CONFIG,
+                                                   solver).items():
+                want = nb_golden["scenes"][f"{name}/{solver}"]
+                for run in ("cold", "warm"):
+                    res, seconds = timed(cfg)
+                    log(f"api {name}/{solver} {run}: {seconds:.3f} s wall "
+                        f"{card_note()}")
+                    check_api(f"api {name}/{solver} {run}", solver, res,
+                              want)
+
+        record(f"the api's {solver}", api_scenes,
+               ("delay_sum", "gcc_all_pairs", "fft_real", "bootstrap_peaks"),
+               NB_FORBID)
+        api_nb_stages(torch, solver, scenes_tool.scene_configs(
+            DEFAULT_CONFIG, solver)["default"])
+    # The command-line demo, its result caught on its way out.
+    got = {}
+    api_fn = demo.localize_sound_source
+
+    def caught(*args, **kw):
+        got["res"] = api_fn(*args, **kw)
+        return got["res"]
+
+    cwd = os.getcwd()
+    os.chdir(tempfile.mkdtemp(prefix="chip_smoke_nb_"))
+    demo.localize_sound_source = caught
+    try:
+        start = time.perf_counter()
+        record("python -m pyaudiolocalization_tpu_torch --solver music "
+               "--no-plots", lambda: demo.main(["--solver", "music",
+                                                "--no-plots"]),
+               ("delay_sum", "gcc_all_pairs", "fft_real", "bootstrap_peaks"),
+               NB_FORBID)
+        log(f"the command-line demo (--solver music): "
+            f"{time.perf_counter() - start:.3f} s wall (calibration "
+            f"included) {card_note()}")
+    finally:
+        demo.localize_sound_source = api_fn
+        os.chdir(cwd)
+    check_api("the command-line demo --solver music", "music", got["res"],
+              nb_golden["scenes"]["default/music"])
+
+    # (2) per-bin absorption: plain torch render (no K3), then the full
+    # core's K1 and the bootstrap.
+    def per_bin():
+        for name, cfg, table in scenes_tool.per_bin_cases(DEFAULT_CONFIG):
+            want = nb_golden["per_bin"][name]
+            scene = (cfg if table is None else SceneConfig.from_dict(
+                cfg, materials=MaterialTable.from_dict(table)))
+            for run in ("cold", "warm"):
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    res, seconds = timed(scene)
+                check_scene(f"per-bin {name}", res, want, seconds, run)
+
+    record("per-bin absorption", per_bin,
+           ("gcc_all_pairs", "fft_real", "bootstrap_peaks"),
+           ("delay_sum",) + NB_FORBID)
+
+    # (3) the narrowband sweep at the trio spec, and its two-tone spec.
+    trio = _spec(nb_golden["trio/beam"]["spec"])
+    for solver in ("beam", "music", "capon"):
+        spec = dataclasses.replace(trio, solver=solver)
+        summary = record(f"the {solver} sweep (trio spec)",
+                         lambda: sw.monte_carlo_sweep(spec, 7, SWEEP_SCENES,
+                                                      device="cuda"),
+                         ("delay_sum",), NB_SWEEP_FORBID)
+        if not bool(torch.isfinite(summary.results.estimate).all()):
+            raise AssertionError(f"{solver}: non-finite sweep estimates")
+        check_statistics(f"{solver} sweep", summary.results.error,
+                         nb_golden[f"trio/{solver}"])
+        wall, dev_ms, idle = idle_share(torch, bench, lambda: sw.
+                                        monte_carlo_sweep(spec, 21,
+                                                          SWEEP_SCENES,
+                                                          device="cuda"))
+        log(f"warm {solver} sweep: {SWEEP_SCENES / wall * 1e3:.1f} scenes/s "
+            f"({wall:.3f} ms wall, {dev_ms:.3f} ms device, idle share "
+            f"{idle:.3f}) {card_note()}")
+        nb_sweep_stages(torch, sw, spec)
+    two = _spec(nb_golden["two_tone/music"]["spec"])
+    for solver in ("music", "capon"):
+        spec = dataclasses.replace(two, solver=solver)
+        summary = record(f"the two-tone {solver} sweep",
+                         lambda: sw.monte_carlo_sweep(spec, 7, MULTI_SCENES,
+                                                      device="cuda"),
+                         ("delay_sum",), NB_SWEEP_FORBID)
+        if summary.results.estimate.shape != (MULTI_SCENES, 2, 3):
+            raise AssertionError("two-tone estimates of shape "
+                                 f"{tuple(summary.results.estimate.shape)}")
+        check_statistics(f"two-tone {solver} sweep", summary.results.error,
+                         nb_golden[f"two_tone/{solver}"])
+        _, seconds = _wall(torch, lambda: sw.monte_carlo_sweep(
+            spec, 21, MULTI_SCENES, device="cuda"))
+        log(f"warm two-tone {solver} sweep: {MULTI_SCENES / seconds:.1f} "
+            f"scenes/s ({seconds:.3f} s) {card_note()}")
+    # localize_batch on numpy-built tone scenes: no kernel at all.
+    case = nb_golden["localize_batch"]
+    signals, _ = scenes_tool.tone_scenes(
+        case["seed"], case["num_scenes"], trio.fs, trio.duration,
+        trio.mic_positions, trio.speed_of_sound, trio.source_box_lo,
+        trio.source_box_hi, trio.freq)
+    signals = torch.as_tensor(signals, device="cuda")
+    for solver in ("beam", "music", "capon"):
+        spec = dataclasses.replace(trio, solver=solver)
+        est, _, _ = record(f"localize_batch {solver}",
+                           lambda: sw.localize_batch(
+                               spec, signals, spec.mic_positions,
+                               device="cuda"), (), PRODUCTION)
+        want = case[solver]
+        gaps = [check_nb_fix(f"localize_batch {solver} scene {b}", solver,
+                             est[b].tolist(), want["estimates"][b],
+                             want["coarse_margin"][b])
+                for b in range(case["num_scenes"])]
+        log(f"localize_batch {solver} vs JAX on {case['num_scenes']} "
+            f"scenes: max position difference {max(gaps):.3e} m")
+
+    # (4) lm-robust and de, fused against split; Wiener on the split.
+    full = _spec(sweep_golden["spec"])
+    for solver in ("lm-robust", "de"):
+        spec = dataclasses.replace(full, solver=solver)
+        if not sw._mono_scene_eligible(spec):
+            raise AssertionError(f"{solver}: the sweep misses the fused "
+                                 "path")
+        summary = record(f"the {solver} sweep (fused path)",
+                         lambda: sw.monte_carlo_sweep(spec, 7, SWEEP_SCENES,
+                                                      device="cuda"),
+                         ("scene_windowed",), ("delay_sum", "gcc_windowed"))
+        fused = summary.results
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        split = record(f"the split {solver} sweep", lambda: sw._run_scenes(
+            spec, gen, SWEEP_SCENES, torch.float32, False),
+            ("delay_sum", "gcc_windowed"), ("scene_windowed",))
+        td_gap = float((fused.tdoas - split.tdoas).abs().max()) * spec.fs
+        pos_gap = float((fused.estimate - split.estimate).abs().max())
+        log(f"{solver} fused vs split over {SWEEP_SCENES} scenes: max TDOA "
+            f"difference {td_gap:.4f} samples, max estimate difference "
+            f"{pos_gap:.3e} m")
+        if not (td_gap < 0.5 and pos_gap < 1e-3):
+            raise AssertionError(f"{solver}: fused and split sweeps "
+                                 "disagree")
+        check_statistics(f"{solver} sweep", fused.error,
+                         nb_golden[f"modes/{solver}"])
+        wall, dev_ms, idle = idle_share(torch, bench, lambda: sw.
+                                        monte_carlo_sweep(spec, 21,
+                                                          SWEEP_SCENES,
+                                                          device="cuda"))
+        log(f"warm {solver} sweep: {SWEEP_SCENES / wall * 1e3:.1f} scenes/s "
+            f"({wall:.3f} ms wall, {dev_ms:.3f} ms device, idle share "
+            f"{idle:.3f}) {card_note()}")
+    de_stages(torch, sw, dataclasses.replace(full, solver="de"))
+    spec = dataclasses.replace(full, filter_method="wiener")
+    if sw._mono_scene_eligible(spec) or not sw._use_windowed(spec):
+        raise AssertionError("wiener: not on the split windowed path")
+    summary = record("the Wiener sweep", lambda: sw.monte_carlo_sweep(
+        spec, 7, SWEEP_SCENES, device="cuda"), ("delay_sum", "gcc_windowed"),
+        ("scene_windowed", "gcc_all_pairs"))
+    check_statistics("Wiener sweep", summary.results.error,
+                     nb_golden["modes/wiener"])
+    wall, dev_ms, idle = idle_share(torch, bench, lambda: sw.
+                                    monte_carlo_sweep(spec, 21, SWEEP_SCENES,
+                                                      device="cuda"))
+    log(f"warm Wiener sweep: {SWEEP_SCENES / wall * 1e3:.1f} scenes/s "
+        f"({wall:.3f} ms wall, {dev_ms:.3f} ms device, idle share "
+        f"{idle:.3f}) {card_note()}")
+    log(f"phase 9: {time.perf_counter() - start_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: K10's A/B bench
 # ---------------------------------------------------------------------------
 
@@ -1793,11 +2321,13 @@ def main() -> int:
     options_golden = json.loads(OPTIONS_GOLDEN.read_text())
     srp_golden = json.loads(SRP_GOLDEN.read_text())
     parity_golden = json.loads(PARITY_GOLDEN.read_text())
+    nb_golden = json.loads(NB_GOLDEN.read_text())
 
     # Phase 1: device.
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
+    CARD[0] = smi
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} ({smi})")
 
@@ -1813,8 +2343,8 @@ def main() -> int:
     # Phase 3: kernels against their plain versions.
     results = kernel_phase(cf, torch)
 
-    # Phases 4, 4b, 5, 6, 7 and 8: the main paths, each with its own launch
-    # counts.
+    # Phases 4, 4b, 5, 6, 7, 8 and 9: the main paths, each with its own
+    # launch counts.
     launches = {name: 0 for name in KERNELS}
     main_path_phase(cf, torch, slice_golden, sweep_golden, launches)
     options_phase(cf, torch, slice_golden, options_golden, launches)
@@ -1822,6 +2352,7 @@ def main() -> int:
     srp_phase(cf, torch, srp_golden, launches)
     results.update(rowdft_phase(cf, launches))
     parity_phase(cf, torch, parity_golden, launches)
+    narrowband_phase(cf, torch, nb_golden, sweep_golden, launches)
     log(f"launches over the main paths: {launches}")
     missing = [k for k in KERNELS if launches.get(k, 0) == 0]
     if missing:

@@ -8,11 +8,12 @@ the reference's public API (``localize_sound_source``,
 (the default demo: the reference lag axis, the pre-sync, calibration) and
 in physical mode with its options (front ends, weightings, ladders,
 bootstrap nulls, clustering, robust LM, the DE fallback, calibration
-delays) and the SRP-PHAT solvers ('srp', 'srp+lm'), its windowed fast
-path, and the batched Monte-Carlo sweep (``parallel/``: the 'lm', 'srp'
-and 'srp+lm' solvers, multi-source scenes), over nine hand-written CUDA
-kernels (ops/cuda_fft.py).  Every other mode raises
-``NotImplementedError``.
+delays, per-bin absorption), the SRP-PHAT solvers ('srp', 'srp+lm') and
+the narrowband solvers ('beam', 'music', 'capon'), its windowed fast path,
+and the batched Monte-Carlo sweep (``parallel/``: every solver, the
+Wiener front end, multi-source scenes), over nine hand-written CUDA
+kernels (ops/cuda_fft.py).  Audio files (``use_simulation=False``) and
+the sweep's multi-card ``mesh=`` raise ``NotImplementedError``.
 """
 
 from .api import (  # noqa: F401

@@ -13,8 +13,7 @@ calibration delays applied.  The JAX package's flags keep their meanings:
   --no-plots         save figures instead of showing them
   --seed N           the scene's seed
   --solver NAME      physical-mode estimator (lm / lm-robust / srp /
-                     srp+lm; the narrowband beam / music / capon are not
-                     ported yet); implies --physical
+                     srp+lm / beam / music / capon); implies --physical
   --device DEV       torch device; the default is ``cuda``, and without a
                      card the demo runs on the CPU only with ``--device
                      cpu``
@@ -60,9 +59,6 @@ def main(argv=None) -> int:
                         help="torch device (default: cuda when available)")
     args = parser.parse_args(argv)
 
-    if args.solver in ("beam", "music", "capon"):
-        raise SystemExit(f"--solver {args.solver} is not ported yet; 'lm', "
-                         "'lm-robust', 'srp' and 'srp+lm' run")
     device = _device(args.device)
 
     logging.basicConfig(level=logging.INFO,

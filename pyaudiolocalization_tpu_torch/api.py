@@ -17,11 +17,13 @@ weightings; the 'gaussian', 'median' and 'adaptive' TDOA ladders, with a
 circular and noise bootstrap nulls (``analyze_correlation``); k-means or
 DBSCAN initial guesses; the multi-start LM, plain or robust ('lm-robust'),
 with the differential-evolution fallback; the SRP-PHAT grid solvers 'srp'
-and 'srp+lm' (models/srp.py); calibration delays behind their SNR gate;
-and the Gauss-Markov uncertainty.  Figures follow the JAX package's rules
-(utils/plotting.py, matplotlib imported lazily; without matplotlib and
-with ``show_plots=False`` one warning names it and no file is written).
-The narrowband solvers ('beam', 'music', 'capon') and audio files raise
+and 'srp+lm' (models/srp.py); the narrowband solvers 'beam', 'music' and
+'capon' (models/beamformer.py, music.py, capon.py) with their
+group-jackknife uncertainty; ``absorption_mode='per-bin'``; calibration
+delays behind their SNR gate; and the Gauss-Markov uncertainty.  Figures
+follow the JAX package's rules (utils/plotting.py, matplotlib imported
+lazily; without matplotlib and with ``show_plots=False`` one warning names
+it and no file is written).  Audio files (``use_simulation=False``) raise
 ``NotImplementedError``.
 
 Two estimation cores, dispatched as the JAX package dispatches them
@@ -30,7 +32,9 @@ no Butterworth pass, since PHAT cancels |H|^2 and the band mask zeroes the
 rest; kernel K2's lag window and statistics; the collapsed single-peak
 ladder) whenever ``_fast_path_eligible`` holds, else the full core (filter,
 K1's full correlations, the full ladder, the bootstrap, then the LM or the
-SRP search).  Eligibility
+SRP search; for a narrowband solver the correlations, the ladder and the
+bootstrap run only for ``analyze_correlation`` / ``visualize_correlation``,
+and the estimator reads the filtered signals).  Eligibility
 depends on the config, the dtype (the kernels take float32) and the
 shapes, never on the device, so the CPU runs the path the card runs.
 
@@ -49,6 +53,9 @@ import numpy as np
 import torch
 
 from .models import acoustics
+from .models import beamformer as beam_ops
+from .models import capon as capon_ops
+from .models import music as music_ops
 from .models import solver as solver_ops
 from .models import srp as srp_ops
 from .models import tdoa as tdoa_ops
@@ -70,6 +77,10 @@ logger = logging.getLogger(__name__)
 
 _LATER = "(not ported yet; a later slice of the PyTorch port brings it)"
 _SOLVERS = ("lm", "lm-robust", "srp", "srp+lm", "beam", "music", "capon")
+_NARROWBAND = ("beam", "music", "capon")
+# Time chunks of the narrowband group jackknife (api.py:292-296 of the JAX
+# package; models/uncertainty.group_jackknife_covariance).
+_NB_GROUPS = 4
 
 
 def simulate_signals_with_multipath(source_pos, mic_positions, fs, c,
@@ -132,15 +143,9 @@ def _check_supported(loc: LocalizationConfig, use_simulation: bool,
         raise ValueError(
             "gcc_weighting is a physical-mode extension; reference-parity "
             "mode keeps PHAT (utils.py:116)")
-    unsupported = [
-        (loc.solver in ("beam", "music", "capon"),
-         f"solver={loc.solver!r} {_LATER}"),
-        (not use_simulation and signals is None,
-         f"use_simulation=False (audio files) {_LATER}"),
-    ]
-    for bad, message in unsupported:
-        if bad:
-            raise NotImplementedError(message)
+    if not use_simulation and signals is None:
+        raise NotImplementedError(f"use_simulation=False (audio files) "
+                                  f"{_LATER}")
 
 
 def _calibration_delays(calibration_data, num_mics: int,
@@ -239,9 +244,10 @@ def _resolve_search_box(scene: SceneConfig, loc: LocalizationConfig):
 def _srp_grid_knobs(scene: SceneConfig, loc: LocalizationConfig, fs: float,
                     c: float):
     """(box lo, box hi, max-pool half-width, mic-diameter lag bound) of the
-    SRP search, host-side (api.py:467-480 of the JAX package): the pool is
-    a coarse cell's covering radius (0.866 of its widest edge) in samples
-    of travel time.  One definition for the nfft rule and the search."""
+    grid solvers' search, host-side (api.py:467-480 of the JAX package):
+    the pool is a coarse cell's covering radius (0.866 of its widest edge)
+    in samples of travel time.  One definition for the nfft rule and the
+    search; the narrowband solvers read the box alone."""
     blo, bhi = _resolve_search_box(scene, loc)
     cell = float(np.max(bhi - blo)) / srp_ops.COARSE_N
     pool = max(1, int(np.ceil(0.866 * cell * fs / c)))
@@ -255,34 +261,46 @@ def _estimation_core(signals: torch.Tensor, mic_positions: torch.Tensor,
                      c: float, generator: Optional[torch.Generator],
                      calib: Optional[torch.Tensor], *, fs: float, pairs_i,
                      pairs_j, nfft: int, loc: LocalizationConfig,
-                     srp_knobs=None) -> Dict[str, torch.Tensor]:
+                     grid_knobs=None) -> Dict[str, torch.Tensor]:
     """Filter -> all-pairs GCC -> TDOA ladder -> (metrics) -> clustered
     multi-start LM (plain or robust), or for 'srp' / 'srp+lm' the SRP
-    search with ``srp_knobs`` (``_srp_grid_knobs``)."""
+    search with ``grid_knobs`` (``_srp_grid_knobs``), or a narrowband
+    estimator on the box of ``grid_knobs``.  The narrowband solvers read no
+    correlation: the GCC and the ladder run for them only when
+    ``analyze_correlation`` or ``visualize_correlation`` reads them
+    (api.py:740-742 of the JAX package); otherwise the TDOAs and the
+    correlation matrix are zeros."""
     n = signals.shape[-1]
     num_mics = mic_positions.shape[0]
     pi = torch.as_tensor(pairs_i, dtype=torch.long, device=signals.device)
     pj = torch.as_tensor(pairs_j, dtype=torch.long, device=signals.device)
+    band = _resolve_phat_band(loc)
 
     filtered = filter_ops.noise_reduction(signals, fs,
                                           method=loc.filter_method)
-    corr = gccphat.gcc_phat_all_pairs(filtered, pairs_i, pairs_j, nfft=nfft,
-                                      band=_resolve_phat_band(loc), fs=fs,
-                                      weighting=loc.gcc_weighting)
-    res = tdoa_ops.time_delays_from_corr(
-        corr, n, n, fs, num_peaks=1, threshold_method=_resolve_threshold(loc),
-        max_expected_delay=loc.max_expected_delay, lag_mode=loc.lag_mode)
-    measured = res.delays[..., 0]
-    # Physical convention: td = arrival_j - arrival_i = -(peak lag)/fs;
-    # parity mode takes the reference's peak lag as it is.
-    td = _calibrated(-measured if loc.lag_mode == "physical" else measured,
-                     calib, pairs_i, pairs_j)
-
-    peak_corr = torch.amax(corr, -1)
-    corr_matrix = torch.zeros((num_mics, num_mics), dtype=corr.dtype,
-                              device=corr.device)
-    corr_matrix[pi, pj] = peak_corr
-    corr_matrix[pj, pi] = peak_corr
+    corr_matrix = torch.zeros((num_mics, num_mics), dtype=signals.dtype,
+                              device=signals.device)
+    if (loc.solver not in _NARROWBAND or loc.analyze_correlation
+            or loc.visualize_correlation):
+        corr = gccphat.gcc_phat_all_pairs(filtered, pairs_i, pairs_j,
+                                          nfft=nfft, band=band, fs=fs,
+                                          weighting=loc.gcc_weighting)
+        res = tdoa_ops.time_delays_from_corr(
+            corr, n, n, fs, num_peaks=1,
+            threshold_method=_resolve_threshold(loc),
+            max_expected_delay=loc.max_expected_delay, lag_mode=loc.lag_mode)
+        measured = res.delays[..., 0]
+        # Physical convention: td = arrival_j - arrival_i = -(peak lag)/fs;
+        # parity mode takes the reference's peak lag as it is.
+        td = _calibrated(-measured if loc.lag_mode == "physical"
+                         else measured, calib, pairs_i, pairs_j)
+        peak_corr = torch.amax(corr, -1)
+        corr_matrix[pi, pj] = peak_corr
+        corr_matrix[pj, pi] = peak_corr
+    else:
+        corr = None
+        measured = td = torch.zeros(len(pairs_i), dtype=signals.dtype,
+                                    device=signals.device)
 
     out = {"corr": corr, "tdoas": td, "measured_delays": measured,
            "correlation_matrix": corr_matrix}
@@ -305,7 +323,10 @@ def _estimation_core(signals: torch.Tensor, mic_positions: torch.Tensor,
 
     if loc.solver in ("srp", "srp+lm"):
         out.update(_solve_srp(corr, mic_positions, c, pairs_i, pairs_j, td,
-                              weights, fs, loc.solver, *srp_knobs))
+                              weights, fs, loc.solver, *grid_knobs))
+    elif loc.solver in _NARROWBAND:
+        out.update(_solve_narrowband(filtered, mic_positions, c, fs, nfft,
+                                     loc.solver, band, *grid_knobs[:2]))
     else:
         out.update(_solve(mic_positions, c, generator, pairs_i, pairs_j, td,
                           weights, loc))
@@ -327,6 +348,40 @@ def _solve_srp(corr, mic_positions, c, pairs_i, pairs_j, td, weights,
     x, cost = srp_ops.lm_polish(srp, mic_positions, pairs_i, pairs_j, td, c,
                                 weights, cell)
     return dict(estimated_position=x, cost=cost)
+
+
+def narrowband_locate(solver: str, mic_positions, fs: float, c, band,
+                      nfft: int):
+    """The api's narrowband estimator as ``locate(signals, lower, upper)``
+    (api.py:263-275 of the JAX package): 'beam' at the GCC's transform
+    length, 'music' / 'capon' at their default frames."""
+    if solver == "beam":
+        return lambda sig, lo, hi: beam_ops.beamform_locate(
+            sig, mic_positions, fs, c, lo, hi, band=band, nfft=nfft)
+    fn = music_ops.music_locate if solver == "music" else \
+        capon_ops.capon_locate
+    return lambda sig, lo, hi: fn(sig, mic_positions, fs, c, lo, hi,
+                                  band=band)
+
+
+def _solve_narrowband(filtered, mic_positions, c, fs: float, nfft: int,
+                      solver: str, band, blo, bhi) -> Dict[str, torch.Tensor]:
+    """'beam' / 'music' / 'capon' over the box (api.py:251-288 of the JAX
+    package), then the group-jackknife covariance: the same estimator
+    re-localizes each of ``_NB_GROUPS`` time chunks on a box of +-12 % of
+    the search box around the fix, plus the fine grid's resolution floor,
+    (box / 384)^2 per axis (the two-stage search quantizes to a fine cell
+    of box / 96, and the quadratic refinement leaves a ~cell / 4 bias that
+    no resampling sees).  The cost is the negated map value."""
+    locate = narrowband_locate(solver, mic_positions, fs, c, band, nfft)
+    lower, upper = srp_ops._box(blo, bhi, filtered)
+    fix = locate(filtered, lower, upper)
+    cov = uncertainty_ops.group_jackknife_covariance(
+        filtered, lambda s, lo, hi: locate(s, lo, hi).position, fix.position,
+        0.12 * (upper - lower), groups=_NB_GROUPS)
+    floor = (upper - lower) / 384.0
+    return dict(estimated_position=fix.position, cost=-fix.power,
+                nb_covariance=cov + torch.diag(floor * floor))
 
 
 def _fast_path_eligible(loc: LocalizationConfig, nfft: int, dtype,
@@ -549,10 +604,11 @@ def localize_sound_source(config,
     pairs_i = tuple(p[0] for p in pairs)
     pairs_j = tuple(p[1] for p in pairs)
     n = sigs.shape[-1]
-    srp_knobs, srp_lags = None, 0
+    grid_knobs, srp_lags = None, 0
+    if loc.solver not in ("lm", "lm-robust"):
+        grid_knobs = _srp_grid_knobs(scene, loc, fs, c)
     if loc.solver in ("srp", "srp+lm"):
-        srp_knobs = _srp_grid_knobs(scene, loc, fs, c)
-        _, _, pool, max_lag = srp_knobs
+        _, _, pool, max_lag = grid_knobs
         # SRP reads lags up to the diameter bound plus the pool width.
         srp_lags = max_lag + pool + 3
     if loc.lag_mode == "reference":
@@ -574,7 +630,7 @@ def localize_sound_source(config,
     else:
         core = _estimation_core(sigs, mics_t, c, generator, calib_t, fs=fs,
                                 pairs_i=pairs_i, pairs_j=pairs_j, nfft=nfft,
-                                loc=loc, srp_knobs=srp_knobs)
+                                loc=loc, grid_knobs=grid_knobs)
 
     estimated = core["estimated_position"].double().cpu().numpy()
     cost = float(core["cost"])
@@ -602,18 +658,29 @@ def localize_sound_source(config,
               if loc.analyze_correlation else None)
     w_np = (uncertainty_ops.weights_from_snr(snr_np)
             if loc.analyze_correlation else None)
-    uncertainty = uncertainty_ops.position_uncertainty(
-        estimated, mic_positions, pairs_i, pairs_j, td_np, c, weights=w_np)
-    if uncertainty is not None:
-        # Gauss-Markov assumes a stationary point of the TDOA least-squares
-        # cost.  Pure-grid SRP cells, an srp+lm whose polish was rejected
-        # (the cost stayed the negated SRP power) and the fallback's fix
-        # are not; their sigma is an approximation.
-        uncertainty["heuristic"] = bool(
-            loc.solver == "srp" or (loc.solver == "srp+lm" and cost < 0.0)
-            or fallback_used)
-        logger.info("Position 1-sigma (x,y,z): (%.4f, %.4f, %.4f) m",
-                    *uncertainty["std"])
+    if loc.solver in _NARROWBAND:
+        # No TDOA residuals: the group jackknife's covariance.
+        uncertainty = uncertainty_ops.summary_from_covariance(
+            core["nb_covariance"].double().cpu().numpy(),
+            dof=_NB_GROUPS - 1)
+        uncertainty["heuristic"] = False
+        logger.info("Position 1-sigma (x,y,z): (%.4f, %.4f, %.4f) m "
+                    "(group jackknife)", *uncertainty["std"])
+    else:
+        uncertainty = uncertainty_ops.position_uncertainty(
+            estimated, mic_positions, pairs_i, pairs_j, td_np, c,
+            weights=w_np)
+        if uncertainty is not None:
+            # Gauss-Markov assumes a stationary point of the TDOA
+            # least-squares cost.  Pure-grid SRP cells, an srp+lm whose
+            # polish was rejected (the cost stayed the negated SRP power)
+            # and the fallback's fix are not; their sigma is an
+            # approximation.
+            uncertainty["heuristic"] = bool(
+                loc.solver == "srp"
+                or (loc.solver == "srp+lm" and cost < 0.0) or fallback_used)
+            logger.info("Position 1-sigma (x,y,z): (%.4f, %.4f, %.4f) m",
+                        *uncertainty["std"])
 
     correlation_metrics = None
     if loc.analyze_correlation:

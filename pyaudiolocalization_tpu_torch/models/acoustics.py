@@ -60,6 +60,15 @@ def log_attenuation(dist, material_id, frequency,
     return -torch.log(d) - fcoeff * frequency * d - absorption * d
 
 
+def attenuation_freq_slope(dist, material_id, freq_table: torch.Tensor):
+    """d(log gain)/d(frequency) of the attenuation law: the reference's
+    exp(-freq_coeff * f * d) term (utils.py:50-65) is log-linear in f with
+    slope -freq_coeff * d.  Per-bin rendering (absorption_mode='per-bin')
+    evaluates that law at every rfft bin, gain(f) = gain(0) * exp(-slope *
+    f), with gains referenced at f = 0 so the exponent is never positive."""
+    return freq_table[material_id] * torch.clamp(dist, min=0.1)
+
+
 class ReflectionTree(NamedTuple):
     """Dense no-immediate-repeat reflection tree (host-side, static):
     node_plane[i] is the plane reflected across to create node i,

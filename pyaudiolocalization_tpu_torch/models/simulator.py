@@ -8,8 +8,13 @@ with in-render measurement noise and a leading scene axis for the sweep;
 and the reference-parity ``simulate_signals``, with the reference's
 data-dependent padding rule and the exact 2N render
 (``render_scene(pad_mode="exact")``, plain PyTorch as the JAX package's
-XLA path: no TPU kernel took that length).  Per-bin absorption and the
-moving-source render belong to later slices.
+XLA path: no TPU kernel took that length).  ``absorption_mode='per-bin'``
+evaluates the attenuation law at every rfft bin of either render
+(``scene_path_slopes``, gains referenced at f = 0): the JAX package renders
+such scenes on XLA, never through its Pallas render, which synthesizes
+scalar gains only (models/simulator.py:135-143 there), so here they are
+plain PyTorch on either device and never reach K3.  The moving-source
+render belongs to a later slice.
 """
 
 from __future__ import annotations
@@ -77,12 +82,32 @@ def scene_paths(source: torch.Tensor, mic_positions: torch.Tensor, c,
                                           torch.zeros_like(gains)))
 
 
+def scene_path_slopes(source: torch.Tensor, mic_positions: torch.Tensor,
+                      images: acoustics.ImageSources,
+                      freq_table: torch.Tensor) -> torch.Tensor:
+    """Per-path log-gain frequency slopes (..., M, 1 + I) for per-bin
+    absorption (``acoustics.attenuation_freq_slope``): the direct path uses
+    'air', each image its plane's material, as in ``scene_paths``.  Rejected
+    paths keep their finite slope; their gain is already 0."""
+    d_direct = torch.linalg.norm(source[..., None, :] - mic_positions,
+                                 dim=-1)
+    s_direct = acoustics.attenuation_freq_slope(d_direct, AIR_ID, freq_table)
+    if images.positions.shape[-2] == 0:
+        return s_direct[..., None]
+    d_img = torch.linalg.norm(images.positions[..., None, :, :]
+                              - mic_positions[..., :, None, :], dim=-1)
+    s_img = acoustics.attenuation_freq_slope(d_img, images.material_ids,
+                                             freq_table)
+    return torch.cat([s_direct[..., None], s_img], -1)
+
+
 def render_scene(base_signal: torch.Tensor, paths_delays: torch.Tensor,
                  paths_gains: torch.Tensor, fs: float, total_samples: int,
                  out_samples: int, pad_mode: str = "pow2",
                  finalize: bool = True,
                  snr_db: Optional[torch.Tensor] = None,
-                 noise_seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 noise_seeds: Optional[torch.Tensor] = None,
+                 freq_slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Render (..., M, out_samples) mic signals: pad base (..., N) to
     total_samples (main.py:102-103), delay-and-sum all paths, fade, trim
     (main.py:119-120), and normalize + compress per mic (main.py:121-122).
@@ -91,7 +116,10 @@ def render_scene(base_signal: torch.Tensor, paths_delays: torch.Tensor,
     (``ops/delay.delay_and_sum``, plain PyTorch).  ``snr_db`` ((...,) dB)
     with ``noise_seeds`` ((..., 2) int32) adds white measurement noise at
     that per-mic SNR after finalization, drawn from the seeds' Philox
-    streams (ops/noise.py)."""
+    streams (ops/noise.py).  ``freq_slopes`` ((..., M, P)) shapes each
+    path's gain, referenced at f = 0, per rfft bin (per-bin absorption,
+    ``ops/delay.delay_and_sum``): that render is plain PyTorch at either
+    length, as the JAX package's XLA path."""
     if pad_mode not in ("pow2", "exact"):
         raise ValueError(f"render_scene pad_mode must be 'pow2' or "
                          f"'exact', got {pad_mode!r}")
@@ -101,9 +129,11 @@ def render_scene(base_signal: torch.Tensor, paths_delays: torch.Tensor,
     lead = base_signal.shape[:-1]
     padded = torch.zeros(lead + (total_samples,), dtype=dt, device=dev)
     padded[..., :base_signal.shape[-1]] = base_signal
-    if pad_mode == "exact":
-        sigs = delay_and_sum(padded, paths_delays, paths_gains, fs,
-                             pad_mode="exact")[..., :out_samples]
+    if pad_mode == "exact" or freq_slopes is not None:
+        sigs = delay_and_sum(
+            padded, paths_delays, paths_gains, fs,
+            pad_mode="exact" if pad_mode == "exact" else "pow2-circular",
+            freq_slopes=freq_slopes)[..., :out_samples]
         if finalize:
             sigs = sig_ops.dynamic_range_compression(
                 sig_ops.normalize_signal(sigs))
@@ -140,13 +170,55 @@ def static_delay_budget(source_pos, mic_positions, plane_coeffs,
     return (diam + max_reflections * reach) / 300.0 + 1.0 / fs
 
 
+def _check_per_bin_coefficients(freq_table, plane_material_ids,
+                                fs: float) -> None:
+    """Warn when per-bin rendering meets reference-scale frequency
+    coefficients: the reference table's per-Hz values (air 0.1, wood 0.8;
+    SURVEY.md Q2) give exp(-0.1 * f * d) ~ exp(-400) across an audio band,
+    harmless as a carrier-mode scalar that the per-mic normalization
+    rescales, but evaluated per bin they annihilate everything above
+    near-DC.  Physically scaled coefficients are ~1e-6 (air) to ~1e-3
+    (very absorbent walls) per Hz*m.  Only the materials the scene uses
+    count: row 0 ('air', the direct path) and the planes'."""
+    table = np.asarray(freq_table, float)
+    if not table.size:
+        return
+    used = np.unique(np.concatenate(
+        [[0], np.asarray(plane_material_ids, np.int64).ravel()]))
+    worst = float(np.max(table[used])) * (fs / 2.0)
+    if worst > 50.0:
+        import warnings
+        warnings.warn(
+            "absorption_mode='per-bin' with frequency coefficients that "
+            f"absorb the band ~exp(-{worst:.0f}) at Nyquist per metre: the "
+            "default material table keeps the reference's per-Hz values "
+            "(air 0.1, wood 0.8), which only make sense as carrier-mode "
+            "scalars.  Per-bin rendering expects physically-scaled "
+            "coefficients (~1e-6..1e-3 per Hz*m); most of the band will "
+            "render as exact zeros otherwise.", stacklevel=3)
+
+
+def _ids(plane_material_ids) -> np.ndarray:
+    return (np.zeros(0, np.int64) if plane_material_ids is None
+            else np.asarray(plane_material_ids, np.int64).reshape(-1))
+
+
 def _scene_geometry(source_pos, mic_positions, c, freq, plane_coeffs,
                     plane_material_ids, absorption_table, freq_table,
                     max_reflections: int, absorption_threshold: float, dt,
-                    device):
+                    device, per_bin: bool = False):
     """Image sources and the direct + image path delays and gains of one
     scene (main.py:93-118), as tensors of ``dt`` on ``device``.  Returns
-    (paths, the images' acceptance mask (I,))."""
+    (paths, the images' acceptance mask (I,), the paths' frequency slopes
+    or None).
+
+    ``per_bin`` references the gains at f = 0 (spreading and the scalar
+    absorption only) and returns the slopes: the render applies the
+    absolute law exp(-slope * f) per bin, whose exponent is never positive,
+    and the relative path weights at the carrier equal carrier mode's up to
+    a per-mic scale that the normalization removes.  Image-source
+    acceptance stays thresholded at the carrier either way (the reference's
+    culling rule, utils.py:90-106)."""
 
     def put(a, kind=dt):
         return torch.as_tensor(np.asarray(a), dtype=kind, device=device)
@@ -155,16 +227,18 @@ def _scene_geometry(source_pos, mic_positions, c, freq, plane_coeffs,
     mics = put(mic_positions)
     plane_np = (np.zeros((0, 4)) if plane_coeffs is None
                 else np.asarray(plane_coeffs, float).reshape(-1, 4))
-    ids_np = (np.zeros(0, np.int64) if plane_material_ids is None
-              else np.asarray(plane_material_ids, np.int64).reshape(-1))
+    ids_np = _ids(plane_material_ids)
     freq_t = put(freq)
     images = acoustics.image_sources(
         source, put(plane_np), put(ids_np, torch.long), mics, freq_t,
         put(absorption_table), put(freq_table), max_reflections,
         absorption_threshold)
-    paths = scene_paths(source, mics, put(c), freq_t, images,
-                        put(absorption_table), put(freq_table))
-    return paths, images.accepted
+    paths = scene_paths(source, mics, put(c),
+                        torch.zeros_like(freq_t) if per_bin else freq_t,
+                        images, put(absorption_table), put(freq_table))
+    slopes = (scene_path_slopes(source, mics, images, put(freq_table))
+              if per_bin else None)
+    return paths, images.accepted, slopes
 
 
 def simulate_signals(source_pos, mic_positions, fs: float, c: float,
@@ -184,21 +258,23 @@ def simulate_signals(source_pos, mic_positions, fs: float, c: float,
     image sources (main.py:93-103, one scalar read on the host), the exact
     2N render, trimmed to int(duration * fs) samples unless
     ``trim_to_duration`` is False.  The stochastic signal types draw from
-    ``generator``."""
+    ``generator``.  ``absorption_mode='per-bin'`` evaluates the attenuation
+    law at every rfft bin (``_scene_geometry``), and warns on
+    reference-scale coefficients (``_check_per_bin_coefficients``)."""
     if absorption_mode not in ("carrier", "per-bin"):
         raise ValueError("absorption_mode must be 'carrier' or 'per-bin'")
-    if absorption_mode == "per-bin":
-        raise NotImplementedError(
-            "absorption_mode='per-bin' is not ported yet (later slice)")
+    per_bin = absorption_mode == "per-bin"
     dt = dtype if dtype is not None else torch.get_default_dtype()
     if absorption_table is None:
         from ..utils.materials import default_table
         table = default_table()
         absorption_table, freq_table = table.absorption, table.freq
-    paths, accepted = _scene_geometry(
+    if per_bin:
+        _check_per_bin_coefficients(freq_table, _ids(plane_material_ids), fs)
+    paths, accepted, slopes = _scene_geometry(
         source_pos, mic_positions, c, freq, plane_coeffs, plane_material_ids,
         absorption_table, freq_table, max_reflections, absorption_threshold,
-        dt, device)
+        dt, device, per_bin)
     base = sig_ops.generate_signal(
         signal_type, fs, duration,
         torch.as_tensor(freq, dtype=dt, device=device), generator=generator,
@@ -212,7 +288,7 @@ def simulate_signals(source_pos, mic_positions, fs: float, c: float,
     total_samples = int((duration + max_delay) * fs)
     out_samples = int(duration * fs) if trim_to_duration else total_samples
     return render_scene(base, paths.delays, paths.gains, fs, total_samples,
-                        out_samples, pad_mode="exact")
+                        out_samples, pad_mode="exact", freq_slopes=slopes)
 
 
 def simulate_signals_fast(source_pos, mic_positions, fs: float, c: float,
@@ -225,15 +301,18 @@ def simulate_signals_fast(source_pos, mic_positions, fs: float, c: float,
                           absorption_mode: str = "carrier") -> torch.Tensor:
     """Physical-mode scene simulation -> (M, int(duration*fs)): the
     geometry and paths of the reference, rendered at a static power-of-two
-    length from a conservative host-side delay budget."""
-    if absorption_mode != "carrier":
-        raise NotImplementedError(
-            "absorption_mode='per-bin' is not ported yet (later slice)")
+    length from a conservative host-side delay budget: through K3, or for
+    ``absorption_mode='per-bin'`` in plain PyTorch (``render_scene``)."""
+    if absorption_mode not in ("carrier", "per-bin"):
+        raise ValueError("absorption_mode must be 'carrier' or 'per-bin'")
+    per_bin = absorption_mode == "per-bin"
+    if per_bin:
+        _check_per_bin_coefficients(freq_table, _ids(plane_material_ids), fs)
     dt = dtype if dtype is not None else torch.get_default_dtype()
-    paths, _ = _scene_geometry(
+    paths, _, slopes = _scene_geometry(
         source_pos, mic_positions, c, freq, plane_coeffs, plane_material_ids,
         absorption_table, freq_table, max_reflections, absorption_threshold,
-        dt, device)
+        dt, device, per_bin)
     base = sig_ops.generate_signal(
         signal_type, fs, duration,
         torch.as_tensor(freq, dtype=dt, device=device), generator=generator,
@@ -245,4 +324,5 @@ def simulate_signals_fast(source_pos, mic_positions, fs: float, c: float,
     out_samples = int(duration * fs)
     total_samples = out_samples + int(np.ceil(budget * fs))
     return render_scene(base, paths.delays, paths.gains, fs, total_samples,
-                        out_samples, pad_mode="pow2", finalize=True)
+                        out_samples, pad_mode="pow2", finalize=True,
+                        freq_slopes=slopes)

@@ -11,7 +11,11 @@ stops when every start of every scene is done; unbatched calls run the
 same code with B = 1.  The outlier-robust LM solves its leave-k-out pair
 subsets as one more such axis.  The fallback for a failed LM — the
 differential evolution with its L-BFGS-B polish (gradients from
-``torch.autograd``) — is host-paced, like scipy's.
+``torch.autograd``) — is host-paced, like scipy's, for one problem; the
+sweep's 'de' solver runs their batched forms (``differential_evolution_
+batched``, ``lbfgsb_minimize_batched``), one problem a scene, in which a
+converged scene freezes exactly where the JAX package's vmapped
+``while_loop`` freezes it.
 
 Sign convention: r = (||x - mic_j|| - ||x - mic_i||) - c * td
 (utils.py:398-404); physical mode feeds td = -(peak lag)/fs.
@@ -254,27 +258,33 @@ def lm_solve(x0: torch.Tensor, mic_positions, pairs_i, pairs_j, tdoas, c,
     return LMResult(x, cost)
 
 
+def _take(t: torch.Tensor, idx: torch.Tensor, dim: int) -> torch.Tensor:
+    """t at index idx along ``dim`` (idx has t's shape without ``dim`` and
+    without any trailing axes after it)."""
+    dim = dim % t.dim()
+    index = idx.unsqueeze(dim)
+    index = index.reshape(index.shape + (1,) * (t.dim() - index.dim()))
+    index = index.expand(t.shape[:dim] + (1,) + t.shape[dim + 1:])
+    return torch.gather(t, dim, index).squeeze(dim)
+
+
 def multi_start_lm(guesses: torch.Tensor, mic_positions, pairs_i, pairs_j,
                    tdoas, c, weights, lower, upper,
                    iters: int = 60) -> LMResult:
     """All restarts at once + argmin-cost selection (the reference's restart
     loop, main.py:261-274); a NaN cost loses.  guesses (G, 3) with mics
-    (M, 3), or (B, G, 3) with mics (B, M, 3), tdoas / weights (B, P) and
-    bounds (B, 3) -> x (..., 3), cost (...)."""
-    batched = guesses.dim() == 3
-    if batched:
-        mic_positions, tdoas, weights, lower, upper = (
-            t[:, None] for t in (mic_positions, tdoas, weights, lower,
-                                 upper))
+    (M, 3), or (..., G, 3) with mics (..., M, 3), tdoas / weights (..., P)
+    and bounds (..., 3) -> x (..., 3), cost (...)."""
+    if guesses.dim() > 2:
+        mic_positions = mic_positions.unsqueeze(-3)
+        tdoas, weights, lower, upper = (
+            t.unsqueeze(-2) for t in (tdoas, weights, lower, upper))
     res = lm_solve(guesses, mic_positions, pairs_i, pairs_j, tdoas, c,
                    weights, lower, upper, iters)
     cost = torch.where(torch.isnan(res.cost),
                        torch.full_like(res.cost, float("inf")), res.cost)
     best = torch.argmin(cost, -1)
-    if not batched:
-        return LMResult(res.x[best], cost[best])
-    rows = torch.arange(guesses.shape[0], device=guesses.device)
-    return LMResult(res.x[rows, best], cost[rows, best])
+    return LMResult(_take(res.x, best, -2), _take(cost, best, -1))
 
 
 def multi_start_lm_robust(guesses: torch.Tensor, mic_positions, pairs_i,
@@ -286,7 +296,10 @@ def multi_start_lm_robust(guesses: torch.Tensor, mic_positions, pairs_i,
     1 for P >= 4, else 0) is solved from ``guesses`` (G, 3), the subsets as
     one leading batch axis of the multi-start LM; the fix whose median
     absolute residual over ALL pairs is least wins, and one Huber-weighted
-    refit from it (MAD scale floored at 1 mm) gives the answer."""
+    refit from it (MAD scale floored at 1 mm) gives the answer.  Scenes
+    are leading axes as in ``multi_start_lm``: guesses (..., G, 3) with
+    mics (..., M, 3), tdoas / weights (..., P) and bounds (..., 3); the
+    least-median fix is selected on the device, with no host read."""
     p = len(pairs_i)
     drop = 2 if p >= 6 else (1 if p >= 4 else 0)
     if drop == 0:
@@ -296,28 +309,30 @@ def multi_start_lm_robust(guesses: torch.Tensor, mic_positions, pairs_i,
     masks = np.ones((len(combos), p))
     for row, gone in enumerate(combos):
         masks[row, list(gone)] = 0.0
+    lead = guesses.shape[:-2]
     masks = torch.as_tensor(masks, dtype=tdoas.dtype, device=tdoas.device)
     subsets = masks.shape[0]
+    masks = masks.reshape((subsets,) + (1,) * len(lead) + (p,))
 
     def per_subset(t):
         return t[None].expand((subsets,) + tuple(t.shape))
 
     best = multi_start_lm(per_subset(guesses), per_subset(mic_positions),
                           pairs_i, pairs_j, per_subset(tdoas), c,
-                          weights * masks, per_subset(lower),
-                          per_subset(upper), iters)              # x (S, 3)
-    ones = torch.ones_like(weights)
+                          per_subset(weights) * masks, per_subset(lower),
+                          per_subset(upper), iters)              # (S, ..., 3)
+    ones = torch.ones_like(tdoas)
     r = torch.abs(tdoa_residuals(best.x, mic_positions, pairs_i, pairs_j,
-                                 tdoas, c, ones))                # (S, P)
-    med = median_nonneg(r)
-    i = int(torch.argmin(med))
-    x = best.x[i]
+                                 tdoas, c, ones))                # (S, ..., P)
+    med = median_nonneg(r)                                       # (S, ...)
+    i = torch.argmin(med, 0)
+    x = _take(best.x, i, 0)
     r = torch.abs(tdoa_residuals(x, mic_positions, pairs_i, pairs_j, tdoas,
                                  c, ones))
-    s = torch.clamp(med[i] / 0.6745, min=1e-3)
+    s = torch.clamp(_take(med, i, 0) / 0.6745, min=1e-3)[..., None]
     w = weights * torch.clamp(huber_k * s / torch.clamp(r, min=1e-12),
                               max=1.0)
-    return multi_start_lm(x[None, :], mic_positions, pairs_i, pairs_j,
+    return multi_start_lm(x[..., None, :], mic_positions, pairs_i, pairs_j,
                           tdoas, c, w, lower, upper, iters)
 
 
@@ -483,6 +498,198 @@ def differential_evolution(objective, lower: torch.Tensor,
         energies = torch.where(better, trial_e, energies)
     i = torch.argmin(energies)
     x, e = pop[i], energies[i]
+    if polish_fn is not None:
+        x, e = polish_fn(x)
+    return DEResult(x, e)
+
+
+# ---------------------------------------------------------------------------
+# Batched forms for the sweep: one problem a scene, every scene in
+# lock-step.  Each scene stops on its own rule and then keeps its state,
+# as it does under the JAX package's vmap of ``lax.while_loop``.
+# ---------------------------------------------------------------------------
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.sum(a * b, -1)
+
+
+def lbfgsb_minimize_batched(objective, x0: torch.Tensor, lower: torch.Tensor,
+                            upper: torch.Tensor, history: int = 10,
+                            maxiter: int = 100, pgtol: float = 1e-5,
+                            ftol: float = 2.220446049250313e-09
+                            ) -> LBFGSBResult:
+    """``lbfgsb_minimize`` for S independent problems: x0, lower and upper
+    (S, dim); ``objective`` maps (S, dim) to (S,), row s depending on row s
+    alone.  Each problem runs the JAX package's step (the two-loop
+    recursion over its own ring of (s, y) pairs, the projected-Armijo
+    search of up to 30 halvings, scipy's stopping rules) and keeps its
+    state once it stops.  Host-paced: one read a step of whether every
+    problem has stopped."""
+    dtype = x0.dtype if x0.is_floating_point() else torch.float32
+    x = torch.clamp(x0.to(dtype), lower, upper)
+    tiny = torch.finfo(dtype).tiny
+    batch, dim = x.shape
+    m = history
+    dev = x.device
+    s_hist = torch.zeros((batch, m, dim), dtype=dtype, device=dev)
+    y_hist = torch.zeros_like(s_hist)
+    rho = torch.zeros((batch, m), dtype=dtype, device=dev)
+    head = torch.zeros(batch, dtype=torch.long, device=dev)
+    count = torch.zeros(batch, dtype=torch.long, device=dev)
+    rows = torch.arange(batch, device=dev)
+    slots = torch.arange(m, device=dev)
+
+    def proj(v):
+        return torch.clamp(v, lower, upper)
+
+    def gradient(v):
+        with torch.enable_grad():
+            vg = v.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(objective(vg).sum(), vg)
+        return g.detach()
+
+    def direction(g):
+        q = g
+        alpha = torch.zeros((batch, m), dtype=dtype, device=dev)
+        for k in range(m):                                   # newest -> oldest
+            i = (head - 1 - k) % m
+            a = torch.where(k < count,
+                            rho[rows, i] * _dot(s_hist[rows, i], q),
+                            torch.zeros_like(q[:, 0]))
+            q = q - a[:, None] * y_hist[rows, i]
+            alpha[rows, i] = a
+        newest = (head - 1) % m
+        gamma = torch.where(
+            count > 0,
+            _dot(s_hist[rows, newest], y_hist[rows, newest])
+            / torch.clamp(_dot(y_hist[rows, newest], y_hist[rows, newest]),
+                          min=tiny), torch.ones_like(q[:, 0]))
+        r = gamma[:, None] * q
+        for k in reversed(range(m)):
+            i = (head - 1 - k) % m
+            b = torch.where(k < count, rho[rows, i] * _dot(y_hist[rows, i], r),
+                            torch.zeros_like(r[:, 0]))
+            r = r + (alpha[rows, i] - b)[:, None] * s_hist[rows, i]
+        return -r
+
+    def line_search(x, f, d, live):
+        a = torch.ones(batch, dtype=dtype, device=dev)
+        ok = torch.zeros(batch, dtype=torch.bool, device=dev)
+        xn, fn = x, f
+        for _ in range(30):
+            xa = proj(x + a[:, None] * d)
+            fa = objective(xa).detach()
+            decrease = fa <= f - 1e-4 * torch.sum((x - xa) ** 2, -1) / \
+                torch.clamp(a, min=tiny)
+            hit = ~ok & decrease & torch.isfinite(fa)
+            xn = torch.where(hit[:, None], xa, xn)
+            fn = torch.where(hit, fa, fn)
+            ok = ok | hit
+            a = torch.where(ok, a, 0.5 * a)
+            if bool(torch.all(ok | ~live)):
+                break
+        return ok, xn, fn
+
+    f = objective(x).detach()
+    g = gradient(x)
+    done = torch.zeros(batch, dtype=torch.bool, device=dev)
+    for _ in range(maxiter):
+        live = ~done
+        active = ((x <= lower) & (g > 0)) | ((x >= upper) & (g < 0))
+        gm = torch.where(active, torch.zeros_like(g), g)
+        d = torch.where(active, torch.zeros_like(g), direction(gm))
+        d = torch.where((_dot(d, gm) < 0)[:, None], d, -gm)
+        ok, xn, fn = line_search(x, f, d, live)
+        gn = gradient(xn)
+        s, y = xn - x, gn - g
+        sy = _dot(s, y)
+        store = live & ok & (sy > 1e-10 * torch.linalg.norm(s, dim=-1)
+                             * torch.linalg.norm(y, dim=-1))
+        put = store[:, None] & (slots == (head % m)[:, None])  # (S, m)
+        s_hist = torch.where(put[..., None], s[:, None], s_hist)
+        y_hist = torch.where(put[..., None], y[:, None], y_hist)
+        rho = torch.where(put, (1.0 / torch.clamp(sy, min=tiny))[:, None],
+                          rho)
+        head = torch.where(store, head + 1, head)
+        count = torch.where(store, torch.clamp(count + 1, max=m), count)
+        pg = torch.amax(torch.abs(proj(xn - gn) - xn), -1)
+        fdrop = (f - fn) / torch.clamp(torch.maximum(torch.abs(f),
+                                                     torch.abs(fn)), min=1.0)
+        x = torch.where(live[:, None], xn, x)
+        f = torch.where(live, fn, f)
+        g = torch.where(live[:, None], gn, g)
+        done = done | (pg <= pgtol) | (ok & (fdrop <= ftol)) | ~ok
+        if bool(torch.all(done)):
+            break
+    return LBFGSBResult(x, f)
+
+
+def differential_evolution_batched(objective, lower: torch.Tensor,
+                                   upper: torch.Tensor,
+                                   generator: Optional[torch.Generator] = None,
+                                   popsize: int = 15, maxiter: int = 1000,
+                                   tol: float = 1e-6,
+                                   mutation: Tuple[float, float] = (0.5, 1.0),
+                                   recombination: float = 0.7,
+                                   polish_fn=None,
+                                   init: Optional[torch.Tensor] = None
+                                   ) -> DEResult:
+    """``differential_evolution`` for S independent problems: bounds
+    (S, dim), ``objective`` maps (S, N, dim) to (S, N), ``init`` (S, K,
+    dim) seeds each population's first members.  Every scene draws its own
+    mutation factor, partners and crossover each generation, and a scene
+    whose population meets scipy's rule std(energies) <= 1e-8 + tol *
+    |mean(energies)| stops there and keeps its population, exactly as the
+    JAX package's vmapped ``while_loop`` freezes it (the rule is checked
+    every generation).  Host-paced: one read a generation of whether every
+    scene has stopped.  ``polish_fn(x (S, dim)) -> (x, e)`` refines each
+    scene's best member."""
+    dev, dtype = lower.device, lower.dtype
+    batch, dim = lower.shape
+    pop_n = popsize * dim
+
+    def rand(*shape):
+        return torch.rand(shape, generator=generator, dtype=dtype,
+                          device=dev)
+
+    def randint(high, *shape):
+        return torch.randint(0, high, shape, generator=generator,
+                             device=dev)
+
+    span = (upper - lower)[:, None, :]
+    segs = (torch.arange(pop_n, dtype=dtype, device=dev)
+            + rand(batch, dim, pop_n)) / pop_n
+    perms = torch.argsort(rand(batch, dim, pop_n), dim=-1)
+    pop = lower[:, None, :] + torch.gather(segs, 2, perms).transpose(1, 2) \
+        * span                                                # (S, pop, dim)
+    if init is not None:
+        k = min(init.shape[-2], pop_n)
+        pop[:, :k] = torch.clamp(init[:, :k].to(dtype), lower[:, None, :],
+                                 upper[:, None, :])
+    energies = objective(pop)
+    rows = torch.arange(batch, device=dev)[:, None]
+    members = torch.arange(pop_n, device=dev)[None, :]
+    for _ in range(maxiter):
+        live = ~(torch.std(energies, -1, correction=0)
+                 <= 1e-8 + tol * torch.abs(torch.mean(energies, -1)))
+        if not bool(torch.any(live)):
+            break
+        best = pop[rows[:, 0], torch.argmin(energies, -1)]     # (S, dim)
+        f = mutation[0] + (mutation[1] - mutation[0]) * rand(batch, 1, 1)
+        r1 = randint(pop_n, batch, pop_n)
+        r2 = (r1 + 1 + randint(pop_n - 1, batch, pop_n)) % pop_n
+        mutant = torch.clamp(best[:, None, :] + f * (pop[rows, r1]
+                                                     - pop[rows, r2]),
+                             lower[:, None, :], upper[:, None, :])
+        cross = rand(batch, pop_n, dim) < recombination
+        cross[rows, members, randint(dim, batch, pop_n)] = True
+        trial = torch.where(cross, mutant, pop)
+        trial_e = objective(trial)
+        better = live[:, None] & (trial_e < energies)
+        pop = torch.where(better[..., None], trial, pop)
+        energies = torch.where(better, trial_e, energies)
+    i = torch.argmin(energies, -1)
+    x, e = pop[rows[:, 0], i], energies[rows[:, 0], i]
     if polish_fn is not None:
         x, e = polish_fn(x)
     return DEResult(x, e)

@@ -9,13 +9,15 @@ residual-estimated noise scale collapses to ``sigma_hat^2 * A``.
 ``position_uncertainty`` is host-side NumPy on (P, 3)-sized arrays, run
 after the estimate is fetched: the same code as the JAX package's host
 path.  ``position_covariance`` is its batched device form, which the sweep
-attaches to every scene.  The narrowband jackknife belongs to a later
-slice.
+attaches to every scene.  The narrowband solvers have no TDOA residuals:
+``group_jackknife_covariance`` re-runs their estimator on time chunks of
+the capture (the chunks one leading batch axis of the locate function),
+and ``summary_from_covariance`` turns its covariance into the same dict.
 """
 from __future__ import annotations
 
 import logging
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -205,4 +207,55 @@ def position_uncertainty(x_hat: np.ndarray,
         "confidence": confidence,
         "dof": dof,
         "unobservable_axes": null_basis,
+    }
+
+
+def group_jackknife_covariance(signals: torch.Tensor,
+                               locate_fn: Callable,
+                               x_hat: torch.Tensor,
+                               radius: torch.Tensor,
+                               groups: int = 4) -> torch.Tensor:
+    """Group-jackknife covariance of a grid-search fix: the capture
+    (..., M, N) splits into ``groups`` equal time chunks, each chunk is
+    re-localized by the same estimator on the box ``x_hat +- radius``, and
+    the scatter of the chunk fixes about their mean, divided by
+    ``groups``, estimates Cov(x_hat) under the 1/sqrt(T) scaling of
+    independent snapshots.  ``locate_fn(chunks, lower, upper)`` takes the
+    chunks as one leading axis, (groups, ..., M, chunk), and returns
+    (groups, ..., 3).  Returns (..., 3, 3).  Below the estimator's
+    breakdown SNR the chunk fixes rail against the box and the estimate
+    saturates."""
+    n = signals.shape[-1]
+    chunk = n // groups
+    parts = signals[..., :groups * chunk].reshape(
+        signals.shape[:-1] + (groups, chunk))
+    parts = torch.movedim(parts, -2, 0)              # (groups, ..., M, chunk)
+    xs = locate_fn(parts, x_hat - radius, x_hat + radius)
+    d = xs - torch.mean(xs, 0)
+    cov_groups = torch.einsum("g...i,g...j->...ij", d, d) / (groups - 1)
+    return cov_groups / groups
+
+
+def summary_from_covariance(cov: np.ndarray, dof: int,
+                            confidence: float = 0.95
+                            ) -> Dict[str, np.ndarray]:
+    """Host-side uncertainty dict from a (3, 3) covariance, with
+    ``position_uncertainty``'s keys (``sigma_td`` None: no TDOA noise scale
+    exists; ``unobservable_axes`` empty: a resampling scatter has no null
+    space)."""
+    if confidence not in _CHI2_3:
+        raise ValueError(f"confidence must be one of {sorted(_CHI2_3)}")
+    cov = np.asarray(cov, np.float64)
+    cov = 0.5 * (cov + cov.T)
+    evals, evecs = np.linalg.eigh(cov)
+    evals = np.maximum(evals, 0.0)
+    return {
+        "covariance": cov,
+        "std": np.sqrt(np.maximum(np.diag(cov), 0.0)),
+        "sigma_td": None,
+        "ellipsoid_radii": np.sqrt(evals * _CHI2_3[confidence]),
+        "ellipsoid_axes": evecs,
+        "confidence": confidence,
+        "dof": dof,
+        "unobservable_axes": np.zeros((3, 0)),
     }

@@ -7,26 +7,35 @@ dimension written out through every stage: one kernel launch renders and
 correlates every scene, the solver iterates every start of every scene in
 lock-step.
 
-Ported: the 'lm', 'srp' and 'srp+lm' solvers; PHAT, SCOT, Roth and CC
-weightings; the 'gaussian', 'median' and 'adaptive' thresholds; an LTI
-front end ('butterworth' / 'fir', which the band mask replaces); and
-multi-source scenes (``num_sources`` 2-6, 'srp' with 'spatial' or
-'claim' suppression).  Three estimation paths, chosen as the JAX package
+Ported: every solver — 'lm', 'lm-robust' and 'de' (differential evolution
+seeded by the clustered guesses and polished by L-BFGS-B, batched over
+scenes: models/solver.differential_evolution_batched), 'srp' and 'srp+lm',
+and the narrowband 'beam', 'music' and 'capon'; PHAT, SCOT, Roth and CC
+weightings; the 'gaussian', 'median' and 'adaptive' thresholds; the LTI
+front ends ('butterworth' / 'fir', which the band mask replaces) and
+Wiener, which really runs (``_prefilter``); and multi-source scenes
+(``num_sources`` 2-6: 'srp' with 'spatial' or 'claim' suppression,
+'music' and 'capon').  Four estimation paths, chosen as the JAX package
 chooses them (``_mono_scene_eligible``, ``_use_windowed``):
 
 * fused (``_sim_est_fused``, kernel K5 ``scene_windowed``): render,
   finalize, noise and the windowed GCC in one host entry, for single-
-  source 'lm' scenes with PHAT and the 'gaussian' threshold whose render
-  transform is the correlation's;
+  source 'lm' / 'lm-robust' / 'de' scenes with PHAT, the 'gaussian'
+  threshold and an LTI front end, whose render transform is the
+  correlation's;
 * split windowed (``_simulate`` + ``_estimate``): K3 ``delay_sum`` with
-  noise, then K2 ``gcc_windowed`` and the windowed ladder, for the other
-  such scenes (a lag gate wider than K2's window is capped at nfft/2, as
-  in the JAX package);
+  noise, then (Wiener, then) K2 ``gcc_windowed`` and the windowed ladder,
+  for the other such scenes (a lag gate wider than K2's window is capped
+  at nfft/2, as in the JAX package);
 * full correlation (``_simulate`` + ``_estimate``): K3, then K1
   ``gcc_all_pairs`` over every scene (the unfused GCC for the other
   weightings), the full TDOA ladder, and the LM tail or the SRP search;
   multi-source scenes render each source raw through K3, sum, finalize
-  and add noise, then run K1 and the multi-source SRP search.
+  and add noise, then run K1 and the multi-source SRP search;
+* narrowband (``_simulate`` + ``_estimate_narrowband``): K3, then the
+  steered-power, MUSIC or Capon search on the (prefiltered) signals, no
+  correlation at all, in scene chunks within ``NB_CHUNK_BYTES``; TDOAs
+  are returned as zeros.
 
 Every random draw of a sweep comes from one ``torch.Generator`` in a fixed
 order: sources (for K > 1 sources, 16 candidates per source), mic jitter,
@@ -38,9 +47,8 @@ noise (``ops/noise.add_noise``).  The JAX package's ``jax.random`` draws
 cannot be reproduced; sweeps agree with it in distribution.
 
 Entry points run on ``cuda`` unless given ``device`` (``device="cpu"``
-runs the plain PyTorch twins).  The 'lm-robust', 'de', 'beam', 'music'
-and 'capon' solvers, the Wiener front end, checkpointing and the
-multi-card mesh raise ``NotImplementedError``.
+runs the plain PyTorch twins).  Checkpointing and the multi-card mesh
+(``mesh=``, which raises ``NotImplementedError``) belong to later slices.
 """
 
 from __future__ import annotations
@@ -54,12 +62,16 @@ import numpy as np
 import torch
 
 from ..models import acoustics
+from ..models import beamformer as beam_ops
+from ..models import capon as capon_ops
+from ..models import music as music_ops
 from ..models import solver as solver_ops
 from ..models import srp as srp_ops
 from ..models import tdoa as tdoa_ops
 from ..models import uncertainty as uncertainty_ops
 from ..models.simulator import render_scene, scene_paths
 from ..ops import cuda_fft
+from ..ops import filters as filter_ops
 from ..ops import gccphat
 from ..ops import noise as noise_ops
 from ..ops import signal as sig_ops
@@ -68,6 +80,10 @@ from ..ops.fftutils import fft_length, next_pow2
 from ..utils.device import resolve_device
 
 _LATER = "is not ported yet; a later slice of the PyTorch port brings it"
+_NARROWBAND = ("beam", "music", "capon")
+#: Device bytes the narrowband search may hold at once: its (scenes, 24^3
+#: points, mics, bins) planes are taken in scene chunks that fit.
+NB_CHUNK_BYTES = 2 << 30
 
 
 def _pairs(num_mics: int) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
@@ -182,8 +198,8 @@ class SceneResult(NamedTuple):
     """Per-scene results, leading scene axis B.  With ``num_sources`` K > 1
     every field but ``tdoas`` / ``covariance`` gains a source axis K
     before its trailing dims (estimates assignment-matched to the ground
-    truth, cost the negated fine-stage SRP power), and the covariance is
-    NaN."""
+    truth, cost the negated fine-stage map value), and the covariance is
+    NaN; so it is for the narrowband solvers, which measure no TDOAs."""
     estimate: torch.Tensor    # (B, 3) / (B, K, 3)
     source: torch.Tensor      # (B, 3) / (B, K, 3) ground truth
     error: torch.Tensor       # (B,) / (B, K) Euclidean error in meters
@@ -210,7 +226,7 @@ def _permutations(k: int) -> np.ndarray:
 
 
 def _check_spec(spec: SweepSpec) -> None:
-    """The JAX package's ValueErrors, then this slice's limits."""
+    """The JAX package's ValueErrors."""
     if spec.num_sources < 1:
         raise ValueError("num_sources must be >= 1")
     if spec.gcc_weighting not in ("phat", "scot", "roth", "cc"):
@@ -236,32 +252,31 @@ def _check_spec(spec: SweepSpec) -> None:
                 "multi-source 'sine' scenes need distinct source_freqs: "
                 "same-frequency sines are fully coherent and cannot be "
                 "separated (SRP-PHAT or MUSIC)")
-    unsupported = [
-        (spec.solver not in ("lm", "srp", "srp+lm"),
-         f"solver={spec.solver!r}"),
-        (spec.filter_method not in ("butterworth", "fir"),
-         f"filter_method={spec.filter_method!r}"),
-    ]
-    for bad, what in unsupported:
-        if bad:
-            raise NotImplementedError(f"sweep {what} {_LATER}")
 
 
 def _tdoa_window_wq(spec: SweepSpec) -> int:
     return tdoa_ops.window_wq(spec.fs, spec.max_tdoa, spec.nfft)
 
 
-def _band(spec: SweepSpec) -> Tuple[float, float]:
-    """The whitening band that replaces the LTI front end: one filter on
-    both channels multiplies the cross-spectrum by |H|^2, which PHAT
-    cancels in-band, and the band mask zeroes the rest
-    (parallel/sweep.py:363-381 of the JAX package)."""
-    return (spec.lowcut, spec.highcut)
+def _prefilter(spec: SweepSpec, signals: torch.Tensor):
+    """(filtered signals, whitening band) of the front end
+    (parallel/sweep.py:363-381 of the JAX package).  An LTI front end
+    ('butterworth' / 'fir') is not run: one filter on both channels
+    multiplies the cross-spectrum by |H|^2, which PHAT cancels in-band, and
+    the band mask zeroes the rest (for the narrowband solvers the band
+    selects the bins).  Wiener is nonlinear, so it really runs, and no band
+    applies."""
+    if spec.filter_method in ("butterworth", "fir"):
+        return signals, (spec.lowcut, spec.highcut)
+    return filter_ops.noise_reduction(signals, spec.fs,
+                                      method=spec.filter_method,
+                                      lowcut=spec.lowcut,
+                                      highcut=spec.highcut), None
 
 
-def _band_mask(spec: SweepSpec, like: torch.Tensor) -> torch.Tensor:
-    return cuda_fft.band_mask(spec.nfft, _band(spec), spec.fs,
-                              dtype=like.dtype, device=like.device)
+def _band_mask(spec: SweepSpec, band, like: torch.Tensor) -> torch.Tensor:
+    return cuda_fft.band_mask(spec.nfft, band, spec.fs, dtype=like.dtype,
+                              device=like.device)
 
 
 def _srp_box(spec: SweepSpec):
@@ -302,16 +317,37 @@ def _use_windowed(spec: SweepSpec) -> bool:
 
 def _solve_from_td(spec: SweepSpec, mics, td, c, generator,
                    seed_indices=None):
-    """Clustered init + bounded multi-start LM (unit weights) for every
-    scene at once: mics (B, M, 3), td (B, P) -> (x (B, 3), cost (B,))."""
+    """The TDOA solver tail (unit weights) for every scene at once: mics
+    (B, M, 3), td (B, P) -> (x (B, 3), cost (B,)).  'lm' / 'lm-robust':
+    clustered init, clipped to the bounds, and the bounded multi-start LM,
+    plain or robust.  'de': differential evolution over the bounds with
+    the (unclipped) clustered guesses as its first members and an
+    L-BFGS-B polish, every scene at once (parallel/sweep.py:499-532 of the
+    JAX package)."""
     pi, pj = spec.pairs
     weights = torch.ones_like(td)
     guesses, _ = solver_ops.heuristic_initial_guesses(
         mics, pi, pj, td, c, generator, seed_indices=seed_indices)
     lower, upper = solver_ops.dynamic_bounds(mics, td, c)
+    if spec.solver == "de":
+        def objective(x):
+            one = x.dim() == 2                        # (B, 3): the polish
+            xs = x[:, None] if one else x             # (B, N, 3)
+            r = solver_ops.tdoa_residuals(xs, mics[:, None], pi, pj,
+                                          td[:, None], c, weights[:, None])
+            e = torch.sum(r * r, -1)
+            return e[:, 0] if one else e
+
+        de = solver_ops.differential_evolution_batched(
+            objective, lower, upper, generator, popsize=spec.de_popsize,
+            maxiter=spec.de_maxiter, init=guesses,
+            polish_fn=lambda x: tuple(solver_ops.lbfgsb_minimize_batched(
+                objective, x, lower, upper)))
+        return de.x, de.energy
     guesses = torch.clamp(guesses, lower[:, None, :], upper[:, None, :])
-    best = solver_ops.multi_start_lm(guesses, mics, pi, pj, td, c, weights,
-                                     lower, upper)
+    solve = (solver_ops.multi_start_lm_robust if spec.solver == "lm-robust"
+             else solver_ops.multi_start_lm)
+    best = solve(guesses, mics, pi, pj, td, c, weights, lower, upper)
     return best.x, best.cost
 
 
@@ -324,12 +360,13 @@ def _solve_from_window(spec: SweepSpec, win, stats, mics, c, generator,
     return x, cost, td
 
 
-def _correlate(spec: SweepSpec, signals: torch.Tensor) -> torch.Tensor:
-    """(B, M, N) -> (B, P, nfft) band-limited correlations of every scene:
-    K1 for PHAT, the unfused GCC for the other weightings."""
+def _correlate(spec: SweepSpec, signals: torch.Tensor,
+               band) -> torch.Tensor:
+    """(B, M, N) -> (B, P, nfft) correlations of every scene, whitened in
+    ``band``: K1 for PHAT, the unfused GCC for the other weightings."""
     pi, pj = spec.pairs
     return gccphat.gcc_phat_all_pairs(signals, pi, pj, nfft=spec.nfft,
-                                      band=_band(spec), fs=spec.fs,
+                                      band=band, fs=spec.fs,
                                       weighting=spec.gcc_weighting)
 
 
@@ -348,24 +385,76 @@ def _solve_srp(spec: SweepSpec, corr, mics, td, c):
                              cell)
 
 
+def _separation(spec: SweepSpec) -> Optional[float]:
+    """Suppression radius of the multi-source searches: 0.8 of the drawn
+    sources' minimum separation, else the default (three coarse cells)."""
+    return (0.8 * spec.source_min_separation
+            if spec.source_min_separation > 0 else None)
+
+
+def _nb_chunk(spec: SweepSpec, itemsize: int) -> int:
+    """Scenes a narrowband chunk holds: its coarse map's (24^3 points,
+    mics, bins) planes, about a dozen of them live at once, within
+    ``NB_CHUNK_BYTES``."""
+    bins = 12 if spec.solver == "beam" else 8
+    per_scene = srp_ops.COARSE_N ** 3 * spec.num_mics * bins * 12 * itemsize
+    return max(1, NB_CHUNK_BYTES // per_scene)
+
+
+def _estimate_narrowband(spec: SweepSpec, filtered: torch.Tensor,
+                         mics: torch.Tensor, c, band):
+    """'beam' / 'music' / 'capon' over the source box expanded 20 %, single-
+    or multi-source ('music' / 'capon'), on the signals alone (no
+    correlation: narrowband sources have no usable correlation peaks), in
+    scene chunks of ``_nb_chunk``.  Returns (x (B, 3) or (B, K, 3),
+    negated map values (B,) or (B, K), zero TDOAs (B, P))."""
+    blo, bhi = _srp_box(spec)
+    lower, upper = srp_ops._box(blo, bhi, filtered)
+    kw = dict(band=band)
+    if spec.num_sources > 1:
+        locate = (music_ops.music_locate_multi if spec.solver == "music"
+                  else capon_ops.capon_locate_multi)
+        kw.update(num_sources=spec.num_sources,
+                  min_separation=_separation(spec))
+    elif spec.solver == "beam":
+        locate = beam_ops.beamform_locate
+        kw.update(nfft=spec.nfft)
+    else:
+        locate = (music_ops.music_locate if spec.solver == "music"
+                  else capon_ops.capon_locate)
+    step = _nb_chunk(spec, filtered.element_size())
+    xs, costs = [], []
+    for i in range(0, filtered.shape[0], step):
+        out = locate(filtered[i:i + step], mics[i:i + step], spec.fs, c,
+                     lower, upper, **kw)
+        xs.append(out[0])
+        costs.append(-out[1])
+    td = torch.zeros((filtered.shape[0], len(spec.pairs[0])),
+                     dtype=filtered.dtype, device=filtered.device)
+    return torch.cat(xs), torch.cat(costs), td
+
+
 def _estimate_multi(spec: SweepSpec, signals: torch.Tensor,
                     mics: torch.Tensor, c):
     """Multi-source estimation: K1 over every scene, then the multi-source
-    SRP search (suppression ``spec.suppression``).  Returns (positions
+    SRP search (suppression ``spec.suppression``); or for 'music' /
+    'capon' the narrowband multi-source search.  Returns (positions
     (B, K, 3) in coarse extraction order, negated fine-stage powers
-    (B, K), diagnostic argmax TDOAs (B, P): the circular peak index
-    decoded as a physical lag, dominated by the strongest source)."""
+    (B, K), diagnostic TDOAs (B, P): the circular argmax index decoded as
+    a physical lag, dominated by the strongest source; zeros for the
+    narrowband solvers)."""
     pi, pj = spec.pairs
-    corr = _correlate(spec, signals)
+    filtered, band = _prefilter(spec, signals)
+    if spec.solver in _NARROWBAND:
+        return _estimate_narrowband(spec, filtered, mics, c, band)
+    corr = _correlate(spec, filtered, band)
     n = corr.shape[-1]
     am = torch.argmax(corr, -1)
     td = -torch.where(am >= n // 2, am - n, am).to(signals.dtype) / spec.fs
     lower, upper, kw = _srp_args(spec, corr)
-    sep = (0.8 * spec.source_min_separation
-           if spec.source_min_separation > 0 else None)
     out = srp_ops.srp_phat_locate_multi(
         corr, mics, pi, pj, spec.fs, c, lower, upper,
-        num_sources=spec.num_sources, min_separation=sep,
+        num_sources=spec.num_sources, min_separation=_separation(spec),
         suppression=spec.suppression, **kw)
     return out.positions, -out.powers, td
 
@@ -373,21 +462,24 @@ def _estimate_multi(spec: SweepSpec, signals: torch.Tensor,
 def _estimate(spec: SweepSpec, signals: torch.Tensor, mics: torch.Tensor,
               c, generator, seed_indices=None):
     """Signals (B, M, N), mics (B, M, 3) -> (x (B, 3), cost (B,), td
-    (B, P)); (B, K, 3), (B, K), (B, P) for K > 1 sources.  The LTI
-    bandpass front end is not run: the band mask replaces it (``_band``).
-    Windowed specs (``_use_windowed``): K2 -> windowed ladder -> clustered
-    init -> bounded multi-start LM.  The others: correlations of every
-    scene -> the full ladder -> that LM tail or the SRP search."""
+    (B, P)); (B, K, 3), (B, K), (B, P) for K > 1 sources.  The front end
+    first (``_prefilter``).  Narrowband solvers: their search on the
+    signals.  Windowed specs (``_use_windowed``): K2 -> windowed ladder ->
+    the solver tail (``_solve_from_td``).  The others: correlations of
+    every scene -> the full ladder -> that tail or the SRP search."""
     if spec.num_sources > 1:
         return _estimate_multi(spec, signals, mics, c)
     pi, pj = spec.pairs
+    filtered, band = _prefilter(spec, signals)
+    if spec.solver in _NARROWBAND:
+        return _estimate_narrowband(spec, filtered, mics, c, band)
     if _use_windowed(spec):
         win, stats = cuda_fft.gcc_windowed(
-            signals.contiguous(), pi, pj, spec.nfft, _tdoa_window_wq(spec),
-            _band_mask(spec, signals))
+            filtered.contiguous(), pi, pj, spec.nfft, _tdoa_window_wq(spec),
+            _band_mask(spec, band, filtered))
         return _solve_from_window(spec, win, stats, mics, c, generator,
                                   seed_indices)
-    corr = _correlate(spec, signals)
+    corr = _correlate(spec, filtered, band)
     res = tdoa_ops.time_delays_from_corr(
         corr, spec.num_samples, spec.num_samples, spec.fs, num_peaks=1,
         threshold_method=spec.threshold_method,
@@ -558,16 +650,17 @@ def _sim_est_fused(spec: SweepSpec, paths, base, snr_db, seeds, mics, c,
         padded, (paths.delays * spec.fs).to(dtype).contiguous(),
         paths.gains.to(dtype).contiguous(), pi, pj, spec.nfft,
         spec.num_samples, _tdoa_window_wq(spec), fade,
-        _band_mask(spec, base), snr_db=snr_db.contiguous(), seeds=seeds)
+        _band_mask(spec, (spec.lowcut, spec.highcut), base),
+        snr_db=snr_db.contiguous(), seeds=seeds)
     return _solve_from_window(spec, win, stats, mics, c, generator)
 
 
 def _mono_scene_eligible(spec: SweepSpec) -> bool:
     """Gate of the fused path: the JAX package's semantic conditions
-    (parallel/sweep.py:728-738 there) — one source, a windowed solver with
-    the 'gaussian' threshold, PHAT, an LTI front end, and a render
-    transform that is the correlation's.  The TPU's VMEM rule does not
-    apply."""
+    (parallel/sweep.py:728-738 there) — one source, a windowed solver
+    ('lm', 'lm-robust', 'de') with the 'gaussian' threshold, PHAT, an LTI
+    front end, and a render transform that is the correlation's.  The
+    TPU's VMEM rule does not apply."""
     return (spec.num_sources == 1 and _windowed_tdoa_solvers(spec)
             and spec.gcc_weighting == "phat"
             and spec.filter_method in ("butterworth", "fir")
@@ -603,12 +696,17 @@ def _run_scenes(spec: SweepSpec, generator, num_scenes: int, dtype,
     else:
         signals = _simulate(spec, sources, mics, c, base, snr_db, seeds)
         estimate, cost, td = _estimate(spec, signals, mics, c, generator)
+    nan_cov = torch.full((num_scenes, 3, 3), float("nan"), dtype=dtype,
+                         device=dev)
     if spec.num_sources == 1:
         source = sources[:, 0]
         error = torch.linalg.norm(estimate - source, dim=-1)
         pi, pj = spec.pairs
-        cov = uncertainty_ops.position_covariance(estimate, mics, pi, pj, td,
-                                                  c)
+        # The narrowband solvers measure no TDOAs: no Gauss-Markov
+        # covariance (NaN, as in the JAX package).
+        cov = (nan_cov if spec.solver in _NARROWBAND else
+               uncertainty_ops.position_covariance(estimate, mics, pi, pj,
+                                                   td, c))
         return SceneResult(estimate, source, error, cost, td, cov)
     # Match estimates to sources by the best (least mean error) of the K!
     # assignments.
@@ -617,10 +715,8 @@ def _run_scenes(spec: SweepSpec, generator, num_scenes: int, dtype,
     best = torch.argmin(torch.mean(d, -1), -1)                        # (B,)
     order = perms[best]                                               # (B, K)
     rows = torch.arange(num_scenes, device=dev)[:, None]
-    cov = torch.full((num_scenes, 3, 3), float("nan"), dtype=dtype,
-                     device=dev)
     return SceneResult(estimate[rows, order], sources, d[rows[:, 0], best],
-                       cost[rows, order], td, cov)
+                       cost[rows, order], td, nan_cov)
 
 
 def _summary(results: SceneResult, hit_threshold: float) -> SweepSummary:

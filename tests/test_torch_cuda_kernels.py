@@ -941,6 +941,91 @@ def test_full_correlation_sweep_on_the_card(cuda, change):
         assert float(s.hit_rate) > 0.8
 
 
+_TRIO = SweepSpec(fs=16000.0, duration=0.25, signal_type="sine", freq=800.0,
+                  mic_positions=tuple((x, y, z) for x in (0.0, 1.0)
+                                      for y in (0.0, 1.0)
+                                      for z in (0.0, 1.0)),
+                  source_box_lo=(0.2, 0.2, 0.2),
+                  source_box_hi=(0.8, 0.8, 0.8), snr_db=(25.0, 35.0))
+
+
+def _tone_scenes(num, seed):
+    """tools/torch_narrowband_golden.tone_scenes (numpy only)."""
+    import importlib.util
+    from pathlib import Path
+    path = (Path(__file__).resolve().parents[1] / "tools"
+            / "torch_narrowband_golden.py")
+    spec = importlib.util.spec_from_file_location("nb_golden", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.tone_scenes(seed, num, _TRIO.fs, _TRIO.duration,
+                              _TRIO.mic_positions, _TRIO.speed_of_sound,
+                              _TRIO.source_box_lo, _TRIO.source_box_hi,
+                              _TRIO.freq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["beam", "music", "capon"])
+def test_narrowband_localize_batch_on_the_card(cuda, solver):
+    """The narrowband trio's localize_batch on 8 tone scenes: no kernel
+    (the estimators read the signals, as the JAX package's XLA path), the
+    fixes within 15 mm of the CPU's float64 answers (float32 eigh bounds
+    MUSIC's fine stage near 1 cm) and near the sources."""
+    import dataclasses
+    spec = dataclasses.replace(_TRIO, solver=solver)
+    sigs, sources = _tone_scenes(8, 3)
+    cf.reset_launches()
+    est, cost, td = localize_batch(spec, sigs, spec.mic_positions, 0,
+                                   device=cuda)
+    assert sum(cf.LAUNCHES.values()) == 0
+    want, _, _ = localize_batch(spec, sigs, spec.mic_positions, 0,
+                                dtype=torch.float64, device="cpu")
+    assert bool(torch.all(td == 0)) and bool(torch.isfinite(cost).all())
+    gap = (est.double().cpu() - want).norm(dim=-1)
+    assert float(gap.max()) < (15e-3 if solver == "music" else 2e-3)
+    err = np.linalg.norm(est.double().cpu().numpy() - sources, axis=-1)
+    assert float(np.median(err)) < 0.02
+
+
+@pytest.mark.cuda
+def test_narrowband_sweep_on_the_card_launches_k3_only(cuda):
+    import dataclasses
+    spec = dataclasses.replace(_TRIO, solver="capon")
+    cf.reset_launches()
+    s = monte_carlo_sweep(spec, 0, 16, device=cuda)
+    assert cf.LAUNCHES["delay_sum"] == 1
+    assert sum(cf.LAUNCHES.values()) == 1
+    assert float(s.hit_rate) > 0.8
+
+
+@pytest.mark.cuda
+def test_batched_de_on_the_card(cuda):
+    """The sweep's DE tail over 64 scenes on the card: K5 (fused), every
+    fix near its source, statistics as the CPU's; and the batched DE
+    freezes a converged scene (its best seeded member comes back)."""
+    import dataclasses
+    spec = dataclasses.replace(_SPEC, solver="de")
+    cf.reset_launches()
+    card = monte_carlo_sweep(spec, 0, 64, device=cuda)
+    assert cf.LAUNCHES["scene_windowed"] == 1
+    assert float(card.hit_rate) > 0.9
+    from pyaudiolocalization_tpu_torch.models import solver
+    f64 = dict(dtype=torch.float64, device=cuda)
+    target = torch.tensor([[0.0, 0.0, 0.0], [0.7, -0.3, 1.1]], **f64)
+
+    def objective(x):
+        sq = torch.sum((x - target[:, None]) ** 2, -1)
+        return torch.stack([1.0 + 1e-12 * sq[0], sq[1]])
+
+    lower = torch.full((2, 3), -2.0, **f64)
+    init = torch.rand((2, 45, 3), generator=_gen(cuda, 3), **f64) * 4.0 - 2.0
+    res = solver.differential_evolution_batched(
+        objective, lower, -lower, _gen(cuda), maxiter=300, init=init)
+    best0 = init[0, torch.argmin(torch.sum(init[0] ** 2, -1))]
+    assert torch.equal(res.x[0], best0)
+    assert float(torch.linalg.norm(res.x[1] - target[1])) < 1e-2
+
+
 # ---------------------------------------------------------------------------
 # K10: the four-step row DFT (ops/rowdft.py).  Limits: rowdft.TRANSFORM_TOL
 # (5e-5) of max|plain| for transforms, rowdft.CHAIN_TOL (2e-3) for the

@@ -220,3 +220,28 @@ def test_exact_length_parity_run_reaches_k7_and_no_power_of_two_kernel(
     # One launch for the six pairs' cross-spectra, then one a chunk of
     # each pair's 40 resampled rows.
     assert cf.LAUNCHES["whiten"] == 1 + 6
+
+
+# ---------------------------------------------------------------------------
+# Per-bin absorption: plain torch, never K3
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["carrier", "per-bin"])
+def test_per_bin_render_launches_no_k3(launches, mode):
+    """simulate_signals_fast in float32, as on the card: the carrier render
+    is one K3 launch; the per-bin render (the JAX package's XLA path, its
+    Pallas render being scalar-gain only) launches no kernel at all."""
+    from pyaudiolocalization_tpu_torch.models.simulator import \
+        simulate_signals_fast
+    mics = np.array([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0],
+                     [0.0, 0.0, 1.0]])
+    planes = np.array([[1.0, 0.0, 0.0, -3.0], [0.0, 1.0, 0.0, -3.0]])
+    out = simulate_signals_fast(
+        [0.2, 0.6, 0.4], mics, 8000.0, 343.0, 0.25, "chirp", 1000.0, planes,
+        [1, 2], [0.01, 0.05, 0.1], [2e-6, 3e-5, 1e-5], 2, 0.01,
+        dtype=torch.float32, device="cpu", absorption_mode=mode)
+    assert out.shape == (4, 2000)
+    want = ["delay_sum"] if mode == "carrier" else []
+    assert [n for n, _ in launches] == want
+    if mode == "per-bin":
+        assert bool(torch.isfinite(out).all())

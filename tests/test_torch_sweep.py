@@ -264,9 +264,40 @@ def test_sweep_multipath_scenes():
     dict(num_sources=2, solver="capon"), dict(filter_method="wiener"),
     dict(solver="music")])
 def test_unsupported_specs_raise(change):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tsw.monte_carlo_sweep(tsw.SweepSpec(**dict(SPEC_ARGS, **change)), 0,
-                              2, device="cpu")
+    """Once refused, now ported: each spec's localize_batch on numpy-built
+    scenes (two noise sources summed for the multi-source specs) against
+    the JAX package's.  The TDOA modes run with the JAX-drawn k-means seeds
+    (the same lags, fixes to 1e-6 m; 'de' draws its own population, 1e-4
+    m); the narrowband solvers return zero TDOAs and their fixes to 1e-6 m.
+    The sweep itself then runs the spec on the CPU."""
+    args = dict(SPEC_ARGS, **change)
+    spec, jspec = tsw.SweepSpec(**args), jsw.SweepSpec(**args)
+    sigs, _ = _scenes(2, spec.fs, spec.duration, seed=6)
+    if spec.num_sources > 1:
+        sigs = sigs + _scenes(2, spec.fs, spec.duration, seed=7)[0]
+    sigs = sigs.astype(np.float64)
+    mics = np.asarray(spec.mic_positions)
+    key = jax.random.PRNGKey(5)
+    west, _, wtd = jsw.localize_batch(jspec, jnp.asarray(sigs),
+                                      jnp.asarray(mics), key)
+    if spec.solver in ("music", "capon", "beam"):
+        est, _, td = tsw.localize_batch(spec, sigs, mics, 0, dtype=F64,
+                                        device="cpu")
+        assert torch.all(td == 0)
+        tol = 1e-6
+    else:
+        keys = jax.random.split(key, 2)
+        idx = torch.tensor([_jax_seed_indices(mics, np.asarray(wtd)[b],
+                                              keys[b]) for b in range(2)])
+        est, _, td = tsw._estimate(spec, torch.tensor(sigs),
+                                   torch.tensor(mics).expand(2, 4, 3),
+                                   spec.speed_of_sound, None,
+                                   seed_indices=idx)
+        tol = 1e-4 if spec.solver == "de" else 1e-6
+    np.testing.assert_allclose(td.numpy(), np.asarray(wtd), atol=1e-12)
+    np.testing.assert_allclose(est.numpy(), np.asarray(west), atol=tol)
+    s = tsw.monte_carlo_sweep(spec, 0, 2, device="cpu")
+    assert np.all(np.isfinite(s.results.estimate.numpy()))
 
 
 def test_sweep_refusals():
