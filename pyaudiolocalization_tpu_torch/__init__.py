@@ -12,8 +12,11 @@ delays, per-bin absorption), the SRP-PHAT solvers ('srp', 'srp+lm') and
 the narrowband solvers ('beam', 'music', 'capon'), its windowed fast path,
 and the batched Monte-Carlo sweep (``parallel/``: every solver, the
 Wiener front end, multi-source scenes), over nine hand-written CUDA
-kernels (ops/cuda_fft.py).  Audio files (``use_simulation=False``) and
-the sweep's multi-card ``mesh=`` raise ``NotImplementedError``.
+kernels (ops/cuda_fft.py); recorded audio files (``use_simulation=
+False``: utils/audio_io.py, ops/resample.py), the reference-shaped
+``compat`` layer with the IIR filters, and the checkpointed sweep
+(``parallel.run_sweep_checkpointed``).  The sweep's multi-card ``mesh=``
+raises ``NotImplementedError``.
 """
 
 from .api import (  # noqa: F401

@@ -23,8 +23,10 @@ group-jackknife uncertainty; ``absorption_mode='per-bin'``; calibration
 delays behind their SNR gate; and the Gauss-Markov uncertainty.  Figures
 follow the JAX package's rules (utils/plotting.py, matplotlib imported
 lazily; without matplotlib and with ``show_plots=False`` one warning names
-it and no file is written).  Audio files (``use_simulation=False``) raise
-``NotImplementedError``.
+it and no file is written).  Recorded audio (``use_simulation=False``
+with ``audio_files``) is read, resampled, normalized and compressed on the
+device (utils/audio_io.read_audio_files), then takes the injected-signal
+route: the pre-sync or the trailing zero-pad, then either core.
 
 Two estimation cores, dispatched as the JAX package dispatches them
 (api.py:717-728 there): the windowed fast core (``_estimation_core_fast``:
@@ -70,12 +72,12 @@ from .ops import gccphat
 from .ops.fftutils import fft_length
 from .utils import plotting
 from .utils.config import LocalizationConfig, SceneConfig
+from .utils.audio_io import read_audio_files
 from .utils.device import resolve_device
 from .utils.materials import MaterialTable, default_table
 
 logger = logging.getLogger(__name__)
 
-_LATER = "(not ported yet; a later slice of the PyTorch port brings it)"
 _SOLVERS = ("lm", "lm-robust", "srp", "srp+lm", "beam", "music", "capon")
 _NARROWBAND = ("beam", "music", "capon")
 # Time chunks of the narrowband group jackknife (api.py:292-296 of the JAX
@@ -122,10 +124,11 @@ def simulate_signals_with_multipath(source_pos, mic_positions, fs, c,
     return [s.cpu().numpy() for s in sigs]
 
 
-def _check_supported(loc: LocalizationConfig, use_simulation: bool,
-                     signals) -> None:
-    """The JAX package's ValueErrors (api.py:549-565 there), then
-    NotImplementedError for every mode the port does not run yet."""
+def _check_supported(loc: LocalizationConfig) -> None:
+    """The JAX package's ValueErrors for the localization settings
+    (api.py:549-565 there).  Every mode of ``localize_sound_source`` runs
+    in the port; of the sweep, only ``mesh=`` raises
+    (parallel/sweep.MESH_NOT_PORTED)."""
     if loc.solver not in _SOLVERS:
         raise ValueError(f"Unknown solver {loc.solver!r}; expected one of "
                          f"{_SOLVERS}")
@@ -143,9 +146,6 @@ def _check_supported(loc: LocalizationConfig, use_simulation: bool,
         raise ValueError(
             "gcc_weighting is a physical-mode extension; reference-parity "
             "mode keeps PHAT (utils.py:116)")
-    if not use_simulation and signals is None:
-        raise NotImplementedError(f"use_simulation=False (audio files) "
-                                  f"{_LATER}")
 
 
 def _calibration_delays(calibration_data, num_mics: int,
@@ -533,7 +533,10 @@ def localize_sound_source(config,
     ``generator`` (a ``torch.Generator`` on ``device``) drives every random
     draw — noise sources, bootstrap permutations, k-means seeding; by
     default one is seeded from the scene's ``seed``.  ``signals`` injects
-    per-mic waveforms in place of the simulation.  Figures as in the JAX
+    per-mic waveforms in place of the simulation; with
+    ``use_simulation=False`` and no ``signals``, ``audio_files`` (one file
+    a mic) are read and resampled to ``fs`` on ``device``, and
+    ``actual_position`` is None.  Figures as in the JAX
     package: parity mode always draws the localization figure (shown with
     ``show_plots``, else saved to ``localization_result.png`` in the
     working directory), as does any simulated run with ``show_plots`` or
@@ -544,7 +547,7 @@ def localize_sound_source(config,
     scene = (config if isinstance(config, SceneConfig)
              else SceneConfig.from_dict(config))
     loc = scene.localization
-    _check_supported(loc, use_simulation, signals)
+    _check_supported(loc)
     dev = resolve_device(device)
     dt = dtype if dtype is not None else torch.get_default_dtype()
     if generator is None:
@@ -563,6 +566,15 @@ def localize_sound_source(config,
         rows = [torch.tensor(np.asarray(s), dtype=dt, device=dev)
                 for s in signals]
         logger.info("Using injected signals.")
+    elif not use_simulation:
+        if audio_files is None:
+            raise ValueError(
+                "Audio files must be provided when use_simulation=False.")
+        if len(audio_files) != num_mics:
+            raise ValueError("The number of audio files must match the "
+                             "number of microphones.")
+        rows = read_audio_files(audio_files, fs, dtype=dt, device=dev)
+        logger.info("Real audio data loaded.")
     else:
         if scene.source_position is None:
             raise ValueError(

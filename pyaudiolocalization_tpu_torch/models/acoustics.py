@@ -17,6 +17,19 @@ import numpy as np
 import torch
 
 
+def speed_of_sound(temperature, humidity, pressure: float = 101.325):
+    """``speed_of_sound_host`` as tensor arithmetic (temperature and
+    humidity: tensors or numbers; the result lies on the temperature's
+    device in its dtype, or torch's default dtype for a number)."""
+    t = torch.as_tensor(temperature,
+                        dtype=(temperature.dtype
+                               if isinstance(temperature, torch.Tensor)
+                               else torch.get_default_dtype()))
+    h = torch.as_tensor(humidity, dtype=t.dtype, device=t.device)
+    t = torch.where((t < -50) | (t > 50), torch.full_like(t, 20.0), t)
+    h = torch.where((h < 0) | (h > 100), torch.full_like(h, 50.0), h)
+    return 331.0 + 0.6 * t + 0.0124 * h + 0.0006 * (pressure - 101.325)
+
 def speed_of_sound_host(temperature: float, humidity: float,
                         pressure: float = 101.325) -> float:
     """331 + 0.6 T + 0.0124 H + 0.0006 (p - 101.325), with the reference's
@@ -36,6 +49,10 @@ def reflect_point_across_plane(point: torch.Tensor,
     factor = 2.0 * (torch.sum(normal * point, -1) + d) / denom
     return point - normal * factor[..., None]
 
+
+def distance(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
+    """Euclidean distance over the last axis (utils.py:44-48)."""
+    return torch.linalg.norm(p1 - p2, dim=-1)
 
 def calculate_attenuation(dist, material_id, frequency,
                           absorption_table: torch.Tensor,

@@ -24,7 +24,7 @@ Sign convention: r = (||x - mic_j|| - ||x - mic_i||) - c * td
 from __future__ import annotations
 
 import itertools
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -81,6 +81,42 @@ def pair_guesses(mic_positions: torch.Tensor, pairs_i, pairs_j,
     sign = torch.where(tdoas > 0, -1.0, 1.0).to(tdoas.dtype)
     return midpoint + sign[..., None] * offset[..., None] * unit, valid
 
+
+def optimal_cluster_count(points: torch.Tensor, valid: torch.Tensor,
+                          generator: Optional[torch.Generator] = None,
+                          max_clusters: int = 5, method: str = "kmeans",
+                          eps: float = 0.001, min_samples: int = 2,
+                          seed_indices: Optional[Mapping[int, Sequence[int]]]
+                          = None) -> int:
+    """Silhouette-selected cluster count (utils.py:273-302) of (n, d)
+    points.  'kmeans': k-means (25 Lloyd iterations) for each k in
+    2..min(max_clusters, n) with its own k-means++ seeds from
+    ``generator`` (or ``seed_indices[k]``, the k seed indices), the best
+    score by strict improvement, 1 below two valid points; 'dbscan': its
+    cluster count when its silhouette over clustered points is positive,
+    else 1."""
+    if method not in ("kmeans", "dbscan"):
+        raise ValueError("Unknown clustering method. Use 'kmeans' or "
+                         "'dbscan'.")
+    n = points.shape[0]
+    n_valid = int(torch.sum(valid))
+    if method == "dbscan":
+        res = cluster_ops.dbscan(points, eps, min_samples, valid)
+        in_cluster = (res.labels >= 0) & valid
+        score = cluster_ops.silhouette_score(
+            points, torch.clamp(res.labels, min=0), n, in_cluster)
+        enough = int(torch.sum(in_cluster)) >= 2
+        return int(res.num_clusters) if enough and float(score) > 0 else 1
+    best_k, best_score = 1, -1.0
+    for k in range(2, min(max_clusters, n) + 1):
+        km = cluster_ops.kmeans(
+            points, k, generator, valid=valid,
+            seed_indices=None if seed_indices is None else seed_indices[k])
+        score = float(cluster_ops.silhouette_score(points, km.labels, k,
+                                                   valid))
+        if k <= n_valid and score > best_score:
+            best_k, best_score = k, score
+    return 1 if n_valid < 2 else best_k
 
 def heuristic_initial_guesses(mic_positions: torch.Tensor, pairs_i, pairs_j,
                               tdoas: torch.Tensor, c,

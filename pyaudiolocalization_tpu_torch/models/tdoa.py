@@ -400,6 +400,36 @@ def bootstrap_significance(sig1: torch.Tensor, sig2: torch.Tensor,
     return bootstrap_threshold(sig1, rows, n, alpha)
 
 
+def significance_test(corr: torch.Tensor, sig1: torch.Tensor,
+                      sig2: torch.Tensor,
+                      generator: Optional[torch.Generator] = None,
+                      alpha: float = 0.05, snr_threshold: float = 2.0,
+                      num_bootstrap: int = 1000,
+                      nfft: Optional[int] = None):
+    """Combined bootstrap + SNR significance (utils.py:252-259): (snr,
+    significant), the peak above the permutation null's threshold and the
+    SNR above ``snr_threshold``."""
+    snr = correlation_snr(corr)
+    threshold = bootstrap_significance(sig1, sig2, generator,
+                                       num_bootstrap=num_bootstrap,
+                                       alpha=alpha, nfft=nfft)
+    return snr, (torch.amax(corr, -1) > threshold) & (snr > snr_threshold)
+
+
+def cross_correlation_metrics(corr: torch.Tensor, sig1: torch.Tensor,
+                              sig2: torch.Tensor,
+                              generator: Optional[torch.Generator] = None,
+                              alpha: float = 0.05, num_bootstrap: int = 1000,
+                              nfft: Optional[int] = None) -> dict:
+    """The metric dict of compute_cross_correlation_metrics
+    (utils.py:261-271): peak-to-peak ratio, SNR, significance."""
+    snr, significant = significance_test(corr, sig1, sig2, generator,
+                                         alpha=alpha,
+                                         num_bootstrap=num_bootstrap,
+                                         nfft=nfft)
+    return {"peak_to_peak_ratio": peak_to_peak_ratio(corr), "snr": snr,
+            "significant": significant}
+
 def compute_weights(snr: torch.Tensor) -> torch.Tensor:
     """Per-pair solver weights: SNR normalized by its mean
     (utils.py:484-497)."""

@@ -49,6 +49,18 @@ def _phase_ramp(padded_length: int, delays: torch.Tensor,
     return torch.complex(torch.cos(theta), -torch.sin(theta))
 
 
+def fractional_delay(signal: torch.Tensor, delay, fs: float) -> torch.Tensor:
+    """Delay one 1-D signal by ``delay`` seconds: the phase ramp at the
+    reference's 2N transform length, then the fade ramps
+    (signal_processing.py:66-80)."""
+    n = signal.shape[-1]
+    padded = 2 * n
+    ramp = _phase_ramp(padded, torch.as_tensor(delay, dtype=signal.dtype,
+                                               device=signal.device), fs)
+    out = irfft_n(rfft_n(signal, padded) * ramp, padded)[..., :n]
+    return out.to(signal.dtype) * fade_window(n, dtype=signal.dtype,
+                                              device=signal.device)
+
 def delay_and_sum(base: torch.Tensor, delays: torch.Tensor,
                   gains: torch.Tensor, fs: float, apply_fade: bool = True,
                   pad_mode: str = "pow2-circular",

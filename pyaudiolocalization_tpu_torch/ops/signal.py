@@ -47,6 +47,17 @@ def dynamic_range_compression(signal: torch.Tensor,
     return torch.where(max_val > 0, compressed / safe, compressed)
 
 
+def dynamic_range_compression_soft_clip(signal: torch.Tensor,
+                                        threshold: float = 0.8
+                                        ) -> torch.Tensor:
+    """Piecewise soft clip above ``threshold`` of the peak-normalized
+    signal (signal_processing.py:96-103; dead code in the reference, kept
+    for the compat layer)."""
+    x = normalize_signal(signal)
+    return torch.where(
+        torch.abs(x) > threshold,
+        torch.sign(x) * (threshold + (torch.abs(x) - threshold) * 0.5), x)
+
 def sine(fs: float, num_samples: int, freq, dtype=None,
          device=None) -> torch.Tensor:
     t = time_axis(fs, num_samples, dtype, device)

@@ -47,8 +47,9 @@ noise (``ops/noise.add_noise``).  The JAX package's ``jax.random`` draws
 cannot be reproduced; sweeps agree with it in distribution.
 
 Entry points run on ``cuda`` unless given ``device`` (``device="cpu"``
-runs the plain PyTorch twins).  Checkpointing and the multi-card mesh
-(``mesh=``, which raises ``NotImplementedError``) belong to later slices.
+runs the plain PyTorch twins).  The chunked, restartable form of the
+sweep is parallel/checkpoint.py; the multi-card mesh (``mesh=``, which
+raises ``NotImplementedError``) belongs to the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -79,7 +80,10 @@ from ..ops.delay import fade_window
 from ..ops.fftutils import fft_length, next_pow2
 from ..utils.device import resolve_device
 
-_LATER = "is not ported yet; a later slice of the PyTorch port brings it"
+# The one mode of the port that still raises: the multi-GPU slice, the
+# last, brings it.
+MESH_NOT_PORTED = ("the multi-card mesh sweep is not ported yet; the "
+                   "multi-GPU slice of the PyTorch port brings it")
 _NARROWBAND = ("beam", "music", "capon")
 #: Device bytes the narrowband search may hold at once: its (scenes, 24^3
 #: points, mics, bins) planes are taken in scene chunks that fit.
@@ -734,6 +738,6 @@ def monte_carlo_sweep(spec: SweepSpec,
     """Run ``num_scenes`` randomized scenes on one device and summarize
     them (RMSE, mean error, hit rate under ``hit_threshold`` meters)."""
     if mesh is not None:
-        raise NotImplementedError(f"the multi-card mesh sweep {_LATER}")
+        raise NotImplementedError(MESH_NOT_PORTED)
     return _summary(run_scene(spec, seed_or_generator, num_scenes, dtype,
                               device), hit_threshold)

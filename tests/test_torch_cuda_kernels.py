@@ -1181,3 +1181,91 @@ def test_rowdft_wrappers_raise_on_the_card(cuda):
                  lambda: rd.row_dft(xr, xi.cpu())):
         with pytest.raises(ValueError):
             call()
+
+
+# ---------------------------------------------------------------------------
+# Recorded audio, the compat layer and the checkpointed sweep on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sr_orig,sr_new", [(48000.0, 44100.0),
+                                            (16000.0, 48000.0)])
+def test_resample_on_the_card_matches_the_cpu(cuda, sr_orig, sr_new):
+    """The chunked Kaiser-sinc resampler on the card against the same code
+    on the CPU, float32, within 1e-5 of the row's peak."""
+    from pyaudiolocalization_tpu_torch.ops.resample import resample
+    x = torch.randn((2, 48000), generator=_gen(cuda, 5), device=cuda)
+    got = resample(x, sr_orig, sr_new)
+    want = resample(x.cpu(), sr_orig, sr_new)
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    assert float((got.cpu() - want).abs().max()) < 1e-5 * float(
+        want.abs().max())
+
+
+@pytest.mark.cuda
+def test_recorded_api_on_the_card(cuda, tmp_path):
+    """Four 48 kHz WAV files of a delayed noise source through
+    localize_sound_source(use_simulation=False) on the card: K1, K4a and
+    K4b launch, and the TDOAs equal the CPU run's within 0.05 samples."""
+    from pyaudiolocalization_tpu_torch.utils.audio_io import write_wav
+    rng = np.random.default_rng(0)
+    base = rng.uniform(-0.5, 0.5, 48000)
+    paths = []
+    for k, shift in enumerate((0, 12, 30, 57)):
+        paths.append(str(tmp_path / f"mic{k}.wav"))
+        write_wav(paths[-1], np.roll(base, shift), 48000)
+    cfg = copy.deepcopy(DEFAULT_CONFIG)
+    cfg["localization"].update(lag_mode="physical", sync_mode="none",
+                               num_bootstrap=64)
+    cf.reset_launches()
+    got = localize_sound_source(cfg, audio_files=paths, use_simulation=False,
+                                device=cuda, dtype=torch.float32)
+    for name in ("gcc_all_pairs", "fft_real", "bootstrap_peaks"):
+        assert cf.LAUNCHES[name] > 0, name
+    assert cf.LAUNCHES["delay_sum"] == 0
+    want = localize_sound_source(cfg, audio_files=paths,
+                                 use_simulation=False, device="cpu",
+                                 dtype=torch.float32)
+    assert np.max(np.abs(got["tdoas"] - want["tdoas"])) * 44100 < 0.05
+
+
+@pytest.mark.cuda
+def test_compat_pow2_pair_on_the_card(cuda):
+    """compat.get_time_delays_phat at n1 + n2 - 1 = 2^15 launches K4a and
+    K9 on the card and recovers an injected fractional delay."""
+    from pyaudiolocalization_tpu_torch import compat
+    fs = 44100.0
+    compat.seed(1)
+    sig = compat.generate_signal("noise", fs, 16384 / fs, 500.0)
+    delayed = compat.fractional_delay(sig, 0.30 / 343.0, fs)
+    cf.reset_launches()
+    delays, corr, _ = compat.get_time_delays_phat(
+        sig, np.append(delayed, 0.0), fs, lag_mode="physical")
+    assert cf.LAUNCHES["fft_real"] == 1 and cf.LAUNCHES["whitened_corr"] == 1
+    assert corr.shape == (32768,)
+    assert abs(-delays[0] - 0.30 / 343.0) * fs < 1.0
+
+
+@pytest.mark.cuda
+def test_checkpointed_sweep_resumes_to_the_bit_on_the_card(cuda, tmp_path):
+    """3 chunks of 64 scenes at the sweep's full-width spec; an interrupted
+    run resumed equals the uninterrupted one to the bit, and K5 launches
+    once a chunk."""
+    from pyaudiolocalization_tpu_torch.parallel import run_sweep_checkpointed
+    spec = SweepSpec()
+    cf.reset_launches()
+    full = run_sweep_checkpointed(spec, 4, 192, 64, str(tmp_path / "f.npz"),
+                                  device=cuda)
+    assert cf.LAUNCHES["scene_windowed"] == 3
+
+    def stop(msg):
+        if msg.startswith("chunk 1/"):
+            raise KeyboardInterrupt
+
+    part = str(tmp_path / "p.npz")
+    with pytest.raises(KeyboardInterrupt):
+        run_sweep_checkpointed(spec, 4, 192, 64, part, log_fn=stop,
+                               device=cuda)
+    resumed = run_sweep_checkpointed(spec, 4, 192, 64, part, device=cuda)
+    for a, b in zip(resumed.results, full.results):
+        np.testing.assert_array_equal(a, b)

@@ -175,9 +175,11 @@ def test_fade_window_and_delay_and_sum_match_jax(rng):
 
 
 def test_port_imports_without_jax():
-    """Every module of the port, the numpy scene builder that
-    ``chip_smoke.py`` loads from tools/torch_sweep_golden.py, and K10's A/B
-    bench (tools/torch_rowdft_bench.py) import with jax blocked."""
+    """Every module of the port (the compat layer, the audio reader, the
+    resampler, the checkpointed sweep and the profiling hooks named), the
+    numpy scene builder that ``chip_smoke.py`` loads from
+    tools/torch_sweep_golden.py, and K10's A/B bench
+    (tools/torch_rowdft_bench.py) import with jax blocked."""
     code = (
         "import sys, pkgutil, importlib, importlib.util\n"
         "sys.modules['jax'] = None\n"
@@ -186,6 +188,10 @@ def test_port_imports_without_jax():
         "pkg.__name__ + '.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
+        "for name in ('compat', 'utils.audio_io', 'utils.flac', "
+        "'utils.vorbis', 'ops.resample', 'parallel.checkpoint', "
+        "'utils.profiling'):\n"
+        "    assert pkg.__name__ + '.' + name in names, name\n"
         "spec = importlib.util.spec_from_file_location('golden', "
         "'tools/torch_sweep_golden.py')\n"
         "tool = importlib.util.module_from_spec(spec)\n"
@@ -207,3 +213,35 @@ def test_port_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
     names = int(proc.stdout.strip())
     assert names >= 20, names
+
+
+@pytest.mark.parametrize("name", ["flac.py", "vorbis.py"])
+def test_numpy_decoders_are_equal_copies(name):
+    """utils/flac.py and utils/vorbis.py are numpy-only: the port carries
+    them as copies, equal to the JAX package's files byte for byte."""
+    port = (REPO / "pyaudiolocalization_tpu_torch" / "utils" / name)
+    jax_side = (REPO / "pyaudiolocalization_tpu" / "utils" / name)
+    assert port.read_bytes() == jax_side.read_bytes()
+
+
+def test_scalar_helpers_match_jax(rng):
+    """speed_of_sound (with its clamps) and distance as tensor functions,
+    fractional_delay and the soft clip, float64 within 1e-12 relative."""
+    temps = np.array([20.0, -60.0, 35.5, 80.0])
+    hums = np.array([50.0, 10.0, 120.0, -5.0])
+    _close(tac.speed_of_sound(torch.tensor(temps), torch.tensor(hums), 99.0),
+           jac.speed_of_sound(jnp.asarray(temps), jnp.asarray(hums), 99.0),
+           rtol=1e-12)
+    assert tac.speed_of_sound(20.0, 50.0).dtype == torch.get_default_dtype()
+    p, q = rng.standard_normal((5, 3)), rng.standard_normal((5, 3))
+    _close(tac.distance(torch.tensor(p), torch.tensor(q)),
+           jac.distance(jnp.asarray(p), jnp.asarray(q)), rtol=1e-12)
+    x = rng.standard_normal(700)
+    for delay in (0.0, 3.7 / 8000.0, -2.2 / 8000.0):
+        _close(tdelay.fractional_delay(torch.tensor(x), delay, 8000.0),
+               jdelay.fractional_delay(jnp.asarray(x), delay, 8000.0),
+               rtol=1e-12, atol_scale=1e-12)
+    for thr in (0.8, 0.3):
+        _close(tsig.dynamic_range_compression_soft_clip(torch.tensor(x), thr),
+               jsig.dynamic_range_compression_soft_clip(jnp.asarray(x), thr),
+               rtol=1e-12)

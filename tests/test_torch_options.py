@@ -190,8 +190,13 @@ def test_fir_design_and_refusals():
         tfilt.noise_reduction(short, FS, method="fir")
     with pytest.raises(ValueError, match="Unknown filter method"):
         tfilt.noise_reduction(short, FS, method="bogus")
-    with pytest.raises(NotImplementedError, match="IIR"):
-        tfilt.filtfilt((1.0, 0.5), (1.0, -0.5), torch.zeros(100))
+    # The IIR filtfilt, once refused here, now runs (tests/test_torch_iir.py
+    # holds every IIR filter): equal to the JAX package's within 1e-10.
+    x = np.random.default_rng(3).standard_normal(100)
+    np.testing.assert_allclose(
+        tfilt.filtfilt((1.0, 0.5), (1.0, -0.5), torch.tensor(x)).numpy(),
+        np.asarray(jfilt.filtfilt((1.0, 0.5), (1.0, -0.5), jnp.asarray(x))),
+        rtol=0, atol=1e-10)
 
 
 # ---------------------------------------------------------------------------

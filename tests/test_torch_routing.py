@@ -6,7 +6,9 @@ outputs are left as allocated, so these tests read the launches only.
 
 They hold K4a's radix-2 passes above 2^20, the row chunks of K4a, K4b, K6
 and K9, the scene chunks of K2, K3 and K5 at the sweep's 65,535 grid
-limit, and the exact-length parity path (K7 only).
+limit, the exact-length parity path (K7 only), the api from recorded files
+(K1, K4a, K4b) and the compat layer's single pair (K4a + K9 at a power of
+two, K7 otherwise).
 """
 
 from __future__ import annotations
@@ -245,3 +247,52 @@ def test_per_bin_render_launches_no_k3(launches, mode):
     assert [n for n, _ in launches] == want
     if mode == "per-bin":
         assert bool(torch.isfinite(out).all())
+
+
+# ---------------------------------------------------------------------------
+# Recorded audio and the compat layer
+# ---------------------------------------------------------------------------
+
+def test_recorded_api_reaches_k1_k4a_k4b(launches, tmp_path, monkeypatch):
+    """localize_sound_source from four WAV files (use_simulation=False),
+    physical mode in float32 as on the card, resampled 16 -> 8 kHz: the
+    GCC is K1, each pair's permutation null K4a then K4b; no render (K3)
+    and no windowed kernel.  The stubbed kernels leave their outputs as
+    allocated, so the host-side uncertainty, which would factor that
+    garbage, is stubbed too."""
+    import copy
+
+    import pyaudiolocalization_tpu_torch as tpkg
+    from pyaudiolocalization_tpu_torch import api
+    monkeypatch.setattr(api.uncertainty_ops, "position_uncertainty",
+                        lambda *a, **k: None)
+    from pyaudiolocalization_tpu_torch.utils.audio_io import write_wav
+    rng = np.random.default_rng(0)
+    base = rng.uniform(-0.5, 0.5, 4000)
+    paths = []
+    for k, shift in enumerate((0, 3, 5, 9)):
+        paths.append(str(tmp_path / f"mic{k}.wav"))
+        write_wav(paths[-1], np.roll(base, shift), 16000)
+    cfg = copy.deepcopy(tpkg.DEFAULT_CONFIG)
+    cfg.update(fs=8000, duration=0.25)
+    cfg["localization"].update(lag_mode="physical", sync_mode="none",
+                               num_bootstrap=16, visualize_correlation=False)
+    tpkg.localize_sound_source(cfg, audio_files=paths, use_simulation=False,
+                               device="cpu", dtype=torch.float32)
+    names = [n for n, _ in launches]
+    assert set(names) == {"gcc_all_pairs", "fft_real", "bootstrap_peaks"}
+    assert cf.LAUNCHES["gcc_all_pairs"] == 1
+    assert cf.LAUNCHES["fft_real"] == cf.LAUNCHES["bootstrap_peaks"] == 6
+
+
+@pytest.mark.parametrize("n2,want", [(1025, ["fft_real", "whitened_corr"]),
+                                     (1000, ["whiten"])])
+def test_compat_single_pair_routes_by_length(launches, n2, want):
+    """compat.get_time_delays_phat on float32 rows: n1 + n2 - 1 a power of
+    two (2,048) reaches K4a and K9; any other length K7's whitening."""
+    from pyaudiolocalization_tpu_torch import compat
+    rng = np.random.default_rng(1)
+    compat.get_time_delays_phat(rng.standard_normal(1024),
+                                rng.standard_normal(n2), 8000.0,
+                                lag_mode="physical", device="cpu")
+    assert [n for n, _ in launches] == want

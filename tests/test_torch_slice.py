@@ -2,8 +2,8 @@
 (float64, small size: 8 kHz, 0.25 s, one reflection order, 64 bootstrap
 draws), the modes once outside the slice (per-bin absorption, the
 narrowband solvers, also through the command-line demo) against it too,
-the refusal that stays (audio files), and the command-line demo's device
-rules."""
+the api's refusals (per-bin coefficients, audio-file arguments), and the
+command-line demo's device rules."""
 
 import copy
 
@@ -137,15 +137,20 @@ def test_modes_outside_the_slice_raise(key, value):
 
 def test_api_refusals():
     """Per-bin absorption with the default (reference-scale) coefficients
-    runs, warning that they absorb the band; audio files still raise."""
+    runs, warning that they absorb the band; audio files are read now
+    (tests/test_torch_audio_io.py), so a missing one raises
+    FileNotFoundError as the JAX package's reader does, and no files at all
+    a ValueError."""
     cfg = _config()
     per_bin = dict(cfg, absorption_mode="per-bin")
     with pytest.warns(UserWarning, match="per-bin"):
         res = tpkg.localize_sound_source(per_bin, device="cpu")
     assert np.all(np.isfinite(res["estimated_position"]))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):
         tpkg.localize_sound_source(cfg, device="cpu", use_simulation=False,
                                    audio_files=["a.wav"] * 4)
+    with pytest.raises(ValueError, match="Audio files must be provided"):
+        tpkg.localize_sound_source(cfg, device="cpu", use_simulation=False)
 
 
 @pytest.mark.parametrize("argv", [

@@ -25,7 +25,10 @@ PyTorch port on the card, with the calibration data both are given.
   Each case in float64 and float32: the sync shifts before rounding and
   the left pads they give, the TDOAs, each pair's peak margin (the chosen
   in-window peak over the runner-up, relative to the chosen; a near-tie
-  can flip between float64 and float32), the position, cost and
+  can flip between float64 and float32) and neighbour gap (the chosen
+  sample over the larger adjacent one: a gap below float32's resolution
+  lets the argmax move one sample; the file written before this field
+  lacks it), the position, cost and
   ``uncertainty['heuristic']`` (true where the DE fallback ran), and per
   pair ``significant``, the peak and the bootstrap threshold (recomputed
   with the run's own keys).
@@ -102,6 +105,27 @@ def peak_margins(corr: np.ndarray, lag_mode: str, n: int, fs: float,
     return out
 
 
+def neighbour_gaps(corr: np.ndarray, lag_mode: str, n: int, fs: float,
+                   measured: np.ndarray) -> list:
+    """Per row: (the chosen lag's sample - the larger of its two adjacent
+    samples) / |the chosen|.  Where this is below float32's resolution of
+    the correlation, another precision's argmax may move one sample even
+    though the peak is clear of every other local maximum."""
+    nfft = corr.shape[-1]
+    if lag_mode == "physical":
+        shift = n - 1 if nfft >= 2 * n - 1 else nfft // 2
+        corr = np.roll(corr, shift, -1)
+        lags = np.arange(nfft) - shift
+    else:
+        lags = np.arange(nfft) - (n - 1)
+    out = []
+    for row, lag in zip(corr, np.asarray(measured) * fs):
+        k = int(np.argmin(np.abs(lags - lag)))
+        side = max(row[k - 1], row[(k + 1) % nfft])
+        out.append(float((row[k] - side) / abs(row[k])))
+    return out
+
+
 def run_case(cfg, calibration, dtype):
     """One localize_sound_source call with its stages recorded."""
     seen = {}
@@ -110,7 +134,7 @@ def run_case(cfg, calibration, dtype):
     def core(*args, **kw):
         out = core_fn(*args, **kw)
         seen.update(signals=args[0], corr=np.asarray(out["corr"]), kw=kw,
-                    key=args[4])
+                    key=args[4], measured=np.asarray(out["measured_delays"]))
         return out
 
     def sync(signals, fs, *args):
@@ -143,7 +167,8 @@ def run_case(cfg, calibration, dtype):
             bootstrap_mode=loc.bootstrap_mode))(
         jnp.take(filtered, pi, 0), jnp.take(filtered, pj, 0),
         jax.random.split(k_metrics, len(pi))))
-    shifts = seen["shifts"]
+    # A run without the pre-sync (sync_mode='none') shifts nothing.
+    shifts = seen.get("shifts", np.zeros(len(scene.mic_positions)))
     pairs = sorted(res["correlation_metrics"])
     return {
         "seconds": seconds,
@@ -155,6 +180,8 @@ def run_case(cfg, calibration, dtype):
         "tdoas": [float(v) for v in res["tdoas"]],
         "margins": peak_margins(seen["corr"], loc.lag_mode, n, scene.fs,
                                 loc.max_expected_delay),
+        "neighbour_gaps": neighbour_gaps(seen["corr"], loc.lag_mode, n,
+                                         scene.fs, seen["measured"]),
         "estimated_position": [float(v) for v in res["estimated_position"]],
         "cost": float(res["cost"]),
         "heuristic": bool(res["uncertainty"]["heuristic"]),
