@@ -3,7 +3,7 @@
 
 Drives the port's main paths on ``cuda`` at full width (4 mics, 44.1 kHz,
 1 s, nfft 65,536; the narrowband trio's 8-mic cube at 16 kHz x 0.25 s),
-in ten phases:
+in eleven phases:
 
 1. device report (``nvidia-smi`` name and power limit);
 2. build of the kernels from ``pyaudiolocalization_tpu_torch/csrc``;
@@ -26,7 +26,9 @@ in ten phases:
    with its device time and ``torch.sgn``'s; K1
    and K9 at every shape with their device time and the device kernels a
    call runs, held to their schedule: K1 3 on the split, 1 in one block,
-   and 11 mics at 65,536 on the passes; K9 2 and 1, also at 131,072);
+   and 11 mics at 65,536 on the passes; K9 2 and 1, also at 131,072;
+   phase 11's shapes: K1 over segments x subframes, K3 over the moving
+   render's 132 frames, K7 at 6 x 4,097 and 28 x 2,049 bins);
    for K10's three kernels (``ops/rowdft.py``) the cases phase 7 does not
    run: the
    inverse, rep = 8 and zero_top at n2 = 64 and 1024, the lane DFT's
@@ -130,6 +132,31 @@ in ten phases:
    uninterrupted run (K5 once a chunk), its scenes/s beside a warm
    ``monte_carlo_sweep``; each step a ``utils.profiling.stage``, the stage
    report printed.
+11. the serving and tracking path, against
+   ``tests/data/torch_serving_golden.json`` and the JAX-drawn bases of
+   ``tests/data/torch_serving_bases.npz`` (``serving_phase``): the moving
+   render of examples/track_moving_source.py (tetrahedral array, 16 kHz,
+   2 s, 1.5 m/s, frame 512; K3) on the golden's noise base and of a
+   chirp synthesized in float64, each channel within 3e-5 of the golden's
+   float64 render at 64 points and by norm (the JAX package's float32
+   render is 1.0e-5 off it), and ``simulate_moving_source`` of the chirp
+   (synthesized in float32) within 1e-2;
+   ``localize_trajectory`` on it (segment 4096, coarse_n 32, fine_n 12,
+   Kalman; K1), static and compensated, within 5 mm of the golden where
+   its coarse margin is clear, the compensated mean error within 0.05 m;
+   ``track_multiple`` on the crossing walkers of EVALUATION.md (12 x 128
+   ms, 4-mic tetra, 1.2 m/s; K3 renders, K1), static and compensated, and
+   three walkers on an 8-mic room array, compensated: identities held,
+   compensated errors within 0.1 m a track; ``gcc_phat_streaming`` on 4 x
+   60 s at 44.1 kHz, frame 8192, PHAT (K7) and 'ml', TDOAs within 0.05
+   samples of the injected half-sample delays, with device time and peak
+   memory; ``StreamingLocalizer`` by ``run()`` and ``step()`` at
+   examples/online_localization.py's configuration on 10 s (K7), two
+   talkers on the 8-mic cube ('spatial', 'claim'; K7), 'music' and
+   'capon' on two tones (no kernel), each talker within 3 cm (tail
+   median), and ``OnlineTracker`` over the compensated stream on the
+   crossing walkers (K1, K7), within 0.1 m a talker; ms a hop warm and the
+   real-time factor, beside the card's name and power limit.
 
 Every path runs with the launch counts set to 0 just before it and read
 just after; each must have launched its kernels.  Any failure raises, and
@@ -185,7 +212,9 @@ ADDED = {("delay_sum", "odd"): 1, ("gcc_windowed", "odd"): 1,
          ("whitened_corr", "no_gate"): 2, ("fft_real", "long"): 3,
          ("whiten", "boot"): 3, ("delay_sum", "chunks"): 3,
          ("gcc_windowed", "chunks"): 3, ("scene_windowed", "chunks"): 3,
-         ("delay_sum", "narrowband"): 4}
+         ("delay_sum", "narrowband"): 4, ("gcc_all_pairs", "subframes"): 5,
+         ("gcc_all_pairs", "walkers"): 5, ("delay_sum", "moving"): 5,
+         ("whiten", "stream"): 5, ("whiten", "stream28"): 5}
 # The sweep across K2's, K3's and K5's scene-chunk boundary: one scene past
 # the 65,535 grid rows of one launch at 4 mics (3 couples), at nfft 512.
 CHUNK_SCENES = 21846
@@ -602,6 +631,73 @@ def kernel_phase(cf, torch):
             f"{device_ms(lambda: torch.sgn(spec), 50)['total']:.4f} ms")
         if tag == "main":
             results["whiten"] = res
+
+    # The serving path's shapes (phase 11).  K1: the trajectory's segments
+    # x subframes (14 segments of the 2 s capture x 8 subframes of 512
+    # samples, 4 mics, at 1,024 points) and the crossing walkers' (12 x 8
+    # x 256 at 512); K3: every frame of the moving render a scene (1 path,
+    # no finalize, the faded frame + budget at the next power of two; the
+    # frames carry the windowed base in their first 512 samples); K7: the
+    # stream's EMA cross-spectra, 6 pairs x 4,097 bins and 28 x 2,049.
+    serving = _load_tool("torch_serving_golden")
+    for tag, (lead, m, length, nfft) in {
+            "subframes": ((14, 8), 4, 512, 1024),
+            "walkers": ((12, 8), 4, 256, 512)}.items():
+        draw("gcc_all_pairs", tag)
+        pi, pj = pairs(m)
+        sig = randn(*lead, m, length).contiguous()
+        mask = cf.band_mask(nfft, None, serving.FS, device=dev)
+        scenes = math.prod(lead)
+        nbytes = 4 * (scenes * (m * length + len(pi) * nfft) + nfft // 2 + 1)
+        compare(f"gcc_all_pairs[{tag}] B={lead} M={m} P={len(pi)} "
+                f"nfft={nfft}",
+                lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
+                lambda: cf.gcc_all_pairs_plain(sig, pi, pj, nfft, mask),
+                tol=1e-6, reps=20,
+                least=bound(nbytes, gcc_ops(scenes, m, len(pi), nfft)))
+        log_device(f"gcc_all_pairs[{tag}] (schedule n1="
+                   f"{cf.gcc_schedule(nfft, m)})",
+                   lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
+                   kernels=1)
+    mv = serving.MOVING
+    budget, lead_s = serving.moving_margins(mv["start"], mv["velocity"],
+                                            serving.TETRA, mv["duration"],
+                                            mv["frame"])
+    frames = -(-int(serving.FS * (mv["duration"] + 2.0 * lead_s
+                                  / serving.FS)) // (mv["frame"] // 2))
+    total, m = mv["frame"] + budget, 4
+    nfft = next_pow2(total)
+    draw("delay_sum", "moving")
+    base = torch.zeros((frames, total), device=dev)
+    base[:, :mv["frame"]] = randn(frames, mv["frame"])
+    tau = (rand(frames, m, 1) * budget).contiguous()
+    gains = rand(frames, m, 1).contiguous()
+    fade = fade_window(total, dtype=torch.float32, device=dev)
+    nbytes = 4 * (frames * total + 2 * frames * m + total
+                  + frames * m * total)
+    compare(f"delay_sum[moving] B={frames} M={m} paths=1 nfft={nfft} "
+            f"out={total} noise=False finalize=False",
+            lambda: cf.delay_sum(base, tau, gains, nfft, total, fade, False),
+            lambda: cf.delay_sum_plain(base, tau, gains, nfft, total, fade,
+                                       False),
+            tol=2e-5, reps=20, scale_by_max=True,
+            least=bound(nbytes, render_ops(frames, m, 1, nfft, total, 0)))
+    log_device("delay_sum[moving]",
+               lambda: cf.delay_sum(base, tau, gains, nfft, total, fade,
+                                    False))
+    for tag, shape in {"stream": (6, 4097), "stream28": (28, 2049)}.items():
+        draw("whiten", tag)
+        spec = torch.complex(randn(*shape), randn(*shape)).contiguous()
+        bins = spec.numel()
+        compare(f"whiten[{tag}] shape={shape}",
+                lambda: cf.whiten(spec), lambda: cf.whiten_plain(spec),
+                tol=1e-6, reps=20, scale_by_max=True,
+                least=bound(16 * bins, 6 * bins),
+                library_fn=lambda: torch.sgn(spec))
+        log(f"whiten[{tag}] device time per call: kernel "
+            f"{device_ms(lambda: cf.whiten(spec), 50)['total']:.4f} ms, "
+            f"torch.sgn "
+            f"{device_ms(lambda: torch.sgn(spec), 50)['total']:.4f} ms")
 
     # K9: whitened correlation of two K4a spectra, no band
     # (phat_correlation).  Main: the single pair at nfft 65,536; no_gate's
@@ -2755,6 +2851,378 @@ def recorded_phase(cf, torch, golden, sweep_golden, launches):
     log(f"phase 10: {time.perf_counter() - start:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the serving and tracking path
+# ---------------------------------------------------------------------------
+
+SERVING_GOLDEN = REPO / "tests" / "data" / "torch_serving_golden.json"
+SERVING_BASES = REPO / "tests" / "data" / "torch_serving_bases.npz"
+SERVING_FORBID = ("gcc_windowed", "scene_windowed", "fft_real",
+                  "bootstrap_peaks", "noise_bootstrap_peaks",
+                  "whitened_corr")
+STREAM_SECONDS = 60.0
+STREAM_FS = 44100.0
+# Injected delays (samples) of the long capture: half-sample fractions,
+# where the parabola through a whitened peak is unbiased (a 0.3 fraction
+# reads ~0.1 sample off on the CPU as on the card).
+STREAM_DELAYS = (0.0, 2.5, -7.5, 12.0)
+GOLDEN_TOL = 5e-3
+
+
+def _render_base(torch, tool, base, mover, mics, duration, frame):
+    """The port's moving render of a given base (``_render_moving``, K3),
+    finalized as ``simulate_moving_source`` finalizes."""
+    from pyaudiolocalization_tpu_torch.models import simulator
+    from pyaudiolocalization_tpu_torch.ops import signal as sig_ops
+    budget, lead = tool.moving_margins(mover["start"], mover["velocity"],
+                                       mics, duration, frame)
+    out = simulator._render_moving(
+        torch.as_tensor(base, device="cuda"), mover["start"],
+        mover["velocity"], mics, tool.FS, tool.C, frame, budget, lead,
+        1000.0, 0.01, 1e-6)
+    return sig_ops.dynamic_range_compression(sig_ops.normalize_signal(out))
+
+
+# The moving render's limit against the float64 golden: float32 delays in
+# samples (K3's input) round by ~1e-5 sample at 200 samples, and the JAX
+# package's own float32 render departs from its float64 render by 1.0e-5
+# at the probes (the golden's ``noise_float32``).
+RENDER_TOL = 3e-5
+# A chirp synthesized in float32 over the 2.1 s base: its phase (~1e4
+# radians) rounds by ~1e-3 rad, which the finalized render carries.
+CHIRP32_TOL = 1e-2
+
+
+def check_probes(name, got, want, idx, tol=RENDER_TOL):
+    import numpy as np
+    got = got.detach().double().cpu().numpy()
+    probe = float(np.max(np.abs(got[:, idx] - np.asarray(want["probes"]))))
+    norms = np.linalg.norm(got, axis=-1)
+    rel = float(np.max(np.abs(norms - want["norms"])
+                       / np.asarray(want["norms"])))
+    log(f"{name}: max probe delta {probe:.2e}, max norm delta {rel:.2e} "
+        "relative")
+    if not (np.isfinite(got).all() and probe <= tol and rel <= tol):
+        raise AssertionError(f"{name}: probes {probe:.2e} / norms {rel:.2e} "
+                             f"vs the golden, limit {tol}")
+
+
+def _identity_errors(pos, truth):
+    """Per-track errors after matching tracks to sources on the first
+    segment (pos, truth (S, K, 3))."""
+    import numpy as np
+    k = pos.shape[1]
+    order = [int(np.argmin(np.linalg.norm(pos[0] - truth[0, j], axis=-1)))
+             for j in range(k)]
+    if len(set(order)) != k:
+        raise AssertionError(f"first-segment match is not one to one: "
+                             f"{order}")
+    return np.stack([np.linalg.norm(pos[:, order[j]] - truth[:, j],
+                                    axis=-1) for j in range(k)], 1)
+
+
+def serving_moving(cf, torch, tool, golden, bases, launches):
+    """The moving render: the golden's noise base and a chirp synthesized
+    in float64 through ``_render_moving``, and the chirp through
+    ``simulate_moving_source`` (synthesized in float32), each one K3
+    launch, against the golden's float64 channels."""
+    import numpy as np
+    from pyaudiolocalization_tpu_torch.models import simulator
+    g = golden["moving"]
+    mover = dict(start=g["start"], velocity=g["velocity"])
+    chirp64 = simulator._moving_base("chirp", g["chirp_freq"], tool.FS,
+                                     g["duration"], g["lead"], None,
+                                     torch.float64, "cuda")
+
+    def renders():
+        noise = _render_base(torch, tool, bases["moving"], mover, g["mics"],
+                             g["duration"], g["frame"])
+        chirp = _render_base(torch, tool, chirp64.float(), mover, g["mics"],
+                             g["duration"], g["frame"])
+        public = simulator.simulate_moving_source(
+            g["start"], g["velocity"], g["mics"], tool.FS, tool.C,
+            g["duration"], "chirp", freq=g["chirp_freq"], frame=g["frame"],
+            dtype=torch.float32)
+        return noise, chirp, public
+
+    (noise, chirp, public), counts = run_path(
+        cf, "the moving render", renders, ("delay_sum",), SERVING_FORBID)
+    _add(launches, counts)
+    if counts["delay_sum"] != 3:
+        raise AssertionError(f"moving render: {counts['delay_sum']} K3 "
+                             "launches for three renders, want 3")
+    idx = np.asarray(g["probe_index"])
+    jax32 = np.max(np.abs(np.asarray(g["noise_float32"]["probes"])
+                          - np.asarray(g["noise"]["probes"])))
+    log(f"moving render: the JAX package's float32 render departs from the "
+        f"golden by {jax32:.2e} at the probes")
+    check_probes("moving render (noise base)", noise, g["noise"], idx)
+    check_probes("moving render (chirp)", chirp, g["chirp"], idx)
+    check_probes("simulate_moving_source (chirp in float32)", public,
+                 g["chirp"], idx, CHIRP32_TOL)
+    _, wall = _wall(torch, renders)
+    log(f"moving render warm: {wall * 1e3 / 3:.2f} ms a 2 s x 4-mic render "
+        f"{card_note()}")
+    return noise
+
+
+def serving_trajectory(cf, torch, tool, golden, capture, launches):
+    """localize_trajectory on the moving capture, static and compensated
+    (K1 over the segments, or over segments x subframes)."""
+    import numpy as np
+    from pyaudiolocalization_tpu_torch.models import tracking
+    lower, upper = tool.ROOM_BOX
+    g = golden["moving"]
+    for motion in ("static", "compensated"):
+        want = golden["trajectory"][motion]
+
+        def track():
+            return tracking.localize_trajectory(
+                capture, g["mics"], tool.FS, tool.C, lower, upper,
+                motion=motion, **tool.TRAJECTORY)
+
+        tr, counts = run_path(cf, f"localize_trajectory ({motion})", track,
+                              ("gcc_all_pairs",), SERVING_FORBID)
+        _add(launches, counts)
+        pos = tr.positions.cpu().numpy()
+        if not np.isfinite(pos).all():
+            raise AssertionError(f"trajectory {motion}: non-finite fixes")
+        clear = np.asarray(want["margins"]) > CLEAR_MARGIN
+        delta = np.linalg.norm(pos - np.asarray(want["positions"]), axis=-1)
+        truth = np.asarray(g["start"]) + tr.times.cpu().numpy()[:, None] \
+            * np.asarray(g["velocity"])
+        err = np.linalg.norm(pos - truth, axis=-1)
+        log(f"trajectory {motion}: {pos.shape[0]} segments, golden delta "
+            f"max {delta[clear].max() if clear.any() else 0.0:.2e} m on "
+            f"{int(clear.sum())} clear segments (all: max {delta.max():.2e}),"
+            f" mean error vs truth {err.mean():.4f} m")
+        if clear.any() and delta[clear].max() > GOLDEN_TOL:
+            raise AssertionError(f"trajectory {motion}: {delta} vs golden")
+        if motion == "compensated":
+            vel = tr.velocities.cpu().numpy()
+            log(f"trajectory compensated velocities (m/s, truth "
+                f"{g['velocity']}): median "
+                f"{np.round(np.median(vel, 0), 3).tolist()}")
+            if err.mean() > 0.05:
+                raise AssertionError(f"compensated trajectory error "
+                                     f"{err.mean():.3f} m > 0.05 m")
+        _, wall = _wall(torch, track)
+        log(f"trajectory {motion} warm: {wall * 1e3:.1f} ms for "
+            f"{pos.shape[0]} segments {card_note()}")
+
+
+def serving_walkers(cf, torch, tool, golden, bases, launches):
+    """track_multiple on the crossing walkers (4-mic tetra, K = 2, static
+    and compensated) and three walkers on the 8-mic room array
+    (compensated), each render K3, each tracking K1.  Returns the 2-walker
+    capture."""
+    import numpy as np
+    from pyaudiolocalization_tpu_torch.models import tracking
+    lower, upper = tool.ROOM_BOX
+    duration = tool.NUM_SEG * tool.SEGMENT / tool.FS
+    mix2 = None
+    for name in ("walkers", "walkers3"):
+        g = golden[name]
+
+        def render():
+            return sum(_render_base(torch, tool, bases[f"{name}_{k}"], w,
+                                    g["mics"], duration, 1024)
+                       for k, w in enumerate(g["walkers"]))
+
+        mix, counts = run_path(cf, f"{name}: render", render,
+                               ("delay_sum",), SERVING_FORBID)
+        _add(launches, counts)
+        if name == "walkers":
+            mix2 = mix
+        for motion in ("static", "compensated"):
+            if motion not in g:
+                continue
+
+            def track():
+                return tracking.track_multiple(
+                    mix, g["mics"], tool.FS, tool.C, lower, upper,
+                    num_sources=len(g["walkers"]), motion=motion,
+                    **tool.MULTI)
+
+            mt, counts = run_path(cf, f"track_multiple {name} ({motion})",
+                                  track, ("gcc_all_pairs",), SERVING_FORBID)
+            _add(launches, counts)
+            pos = mt.positions.cpu().numpy()
+            truth = tool.walker_truth(g["walkers"], mt.times.cpu().numpy())
+            err = _identity_errors(pos, truth)
+            gold = _identity_errors(np.asarray(g[motion]["positions"]),
+                                    truth)
+            _, wall = _wall(torch, track)
+            log(f"track_multiple {name} {motion}: mean error per track "
+                f"{np.round(err.mean(0), 4).tolist()} m, final "
+                f"{np.round(err[-1], 4).tolist()} (golden means "
+                f"{np.round(gold.mean(0), 4).tolist()}), associated "
+                f"{float(mt.associated.float().mean()):.2f}; warm "
+                f"{wall * 1e3:.1f} ms for {pos.shape[0]} segments "
+                f"{card_note()}")
+            if motion == "compensated" and (err.mean(0).max() > 0.1
+                                            or err[-1].max() > 0.4):
+                raise AssertionError(f"{name} compensated: errors {err}")
+    return mix2
+
+
+def serving_streaming_gcc(cf, torch, launches):
+    """gcc_phat_streaming on 4 mics x 60 s at 44.1 kHz, frame 8192, PHAT
+    (K7) and 'ml' (no kernel): TDOAs within 0.05 samples of the injected
+    delays; device time and peak memory."""
+    import numpy as np
+    from pyaudiolocalization_tpu_torch.ops import gccphat
+    n = int(STREAM_SECONDS * STREAM_FS)
+    nfft = 1 << int(math.ceil(math.log2(n + 256)))
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    base = torch.randn(nfft, generator=gen, device="cuda",
+                       dtype=torch.float64)
+    freqs = torch.fft.rfftfreq(nfft, device="cuda", dtype=torch.float64)
+    spec = torch.fft.rfft(base)
+    delays = torch.tensor(STREAM_DELAYS, device="cuda", dtype=torch.float64)
+    sigs = torch.fft.irfft(spec * torch.exp(-2j * math.pi * freqs
+                                            * delays[:, None]), nfft)[:, :n]
+    sigs = (sigs + 0.3 * torch.randn(sigs.shape, generator=gen,
+                                     device="cuda", dtype=torch.float64)
+            ).float().contiguous()
+    del base, spec
+    pi, pj = np.triu_indices(4, 1)
+    want = np.array([-(STREAM_DELAYS[j] - STREAM_DELAYS[i])
+                     for i, j in zip(pi, pj)])
+    for weighting, expect in (("phat", ("whiten",)), ("ml", ())):
+        def gcc():
+            corr, lags = gccphat.gcc_phat_streaming(
+                sigs, pi, pj, frame=8192, weighting=weighting)
+            return gccphat.tdoa_from_streaming(corr, lags, STREAM_FS)
+
+        torch.cuda.reset_peak_memory_stats()
+        tdoa, counts = run_path(cf, f"gcc_phat_streaming ({weighting})",
+                                gcc, expect,
+                                SERVING_FORBID + ("gcc_all_pairs",
+                                                  "delay_sum"))
+        _add(launches, counts)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        err = np.abs(tdoa.cpu().numpy() * STREAM_FS - want)
+        ms = time_ms(gcc, 3)
+        log(f"gcc_phat_streaming {weighting}: 4 x {STREAM_SECONDS:g} s at "
+            f"{STREAM_FS:g} Hz, frame 8192: max TDOA error {err.max():.4f} "
+            f"samples, {ms:.2f} ms a call (CUDA events), peak memory "
+            f"{peak:.3f} GiB {card_note()}")
+        if not err.max() <= 0.05:
+            raise AssertionError(f"streaming GCC {weighting}: TDOA errors "
+                                 f"{err} samples")
+
+
+def _per_hop(torch, fn, hops, hop_s):
+    _, wall = _wall(torch, fn)
+    ms = wall * 1e3 / hops
+    return ms, hop_s * 1e3 / ms
+
+
+def serving_streams(cf, torch, tool, golden, walkers_mix, launches):
+    """StreamingLocalizer by run() and step() on the example's 10 s
+    capture (K7), two talkers on the 8-mic cube ('spatial', 'claim'; K7),
+    'music' and 'capon' on two tones (no kernel), and OnlineTracker over
+    the compensated stream on the crossing walkers (K1 and K7); ms a hop
+    warm and the real-time factor."""
+    import numpy as np
+    from pyaudiolocalization_tpu_torch.models import online
+    captures = {name: tool.static_capture(name) for name in tool.CAPTURES}
+    for case, spec in tool.STREAMS.items():
+        mics = tool.MIC_SETS[spec["mics"]]
+        sources = np.asarray([s[0] for s in
+                              tool.CAPTURES[spec["capture"]]["sources"]])
+        capture = captures[spec["capture"]]
+        loc = online.StreamingLocalizer(mics, tool.FS, tool.C, np.zeros(3),
+                                        np.ones(3), **spec["kw"])
+        expect = ("whiten",) if loc.method == "srp" else ()
+        (pos, _), counts = run_path(
+            cf, f"StreamingLocalizer {case}", lambda: loc.run(capture),
+            expect, SERVING_FORBID + ("delay_sum", "gcc_all_pairs"))
+        _add(launches, counts)
+        want = np.asarray(golden["stream"][case]["positions"])
+        delta = np.abs(pos - want).reshape(pos.shape[0], -1).max(1)
+        tail = pos[pos.shape[0] // 2:].reshape(-1, len(sources), 3)
+        err = np.stack([np.min(np.linalg.norm(
+            tail[:, :, None] - s, axis=-1), 1) for s in sources], 1)
+        med = np.median(err, 0)
+        hops = capture.shape[1] // loc.hop
+        ms, rtf = _per_hop(torch, lambda: loc.run(capture), hops,
+                           loc.hop / tool.FS)
+        log(f"stream {case}: {pos.shape[0]} hops, tail-median error per "
+            f"talker {np.round(med, 4).tolist()} m, golden delta median "
+            f"{np.median(delta):.2e} max {delta.max():.2e}; warm run() "
+            f"{ms:.3f} ms a hop = {rtf:.1f}x real time {card_note()}")
+        if not np.isfinite(pos).all() or med.max() > 0.03:
+            raise AssertionError(f"stream {case}: errors {med}")
+        if case in ("srp", "two_claim", "music"):
+            wall_ms, dev_ms, idle = idle_share(
+                torch, _load_tool("torch_rowdft_bench"),
+                lambda: loc.run(capture))
+            log(f"stream {case} run(): {wall_ms:.1f} ms wall, {dev_ms:.2f} "
+                f"ms of device time ({dev_ms / hops:.3f} a hop), device "
+                f"idle {idle:.1%} {card_note()}")
+        if case == "srp":
+            def stepped():
+                state, out = loc.init_state(), []
+                for s in range(hops):
+                    o = loc.step(state, capture[:, s * loc.hop:
+                                                (s + 1) * loc.hop])
+                    state = o.state
+                    out.append(o.position)
+                return torch.stack(out).cpu().numpy()
+
+            step_pos, counts = run_path(cf, "StreamingLocalizer srp step()",
+                                        stepped, expect)
+            _add(launches, counts)
+            warm = loc.frame // loc.hop - 1
+            if not np.array_equal(step_pos[warm:], pos):
+                raise AssertionError("step() and run() disagree")
+            ms, rtf = _per_hop(torch, stepped, hops, loc.hop / tool.FS)
+            log(f"stream srp step(): equal to run(); warm {ms:.3f} ms a hop "
+                f"= {rtf:.1f}x real time (a block upload a hop) "
+                f"{card_note()}")
+    g = golden["walkers"]
+    kw = {k: v for k, v in golden["tracker"].items()
+          if k not in ("positions", "associated")}
+    lower, upper = tool.ROOM_BOX
+    trk = online.OnlineTracker(online.StreamingLocalizer(
+        g["mics"], tool.FS, tool.C, lower, upper, **kw), max_speed=3.0)
+    capture = walkers_mix.cpu().numpy()
+    (pos, _, ok), counts = run_path(
+        cf, "OnlineTracker (compensated)", lambda: trk.run(capture),
+        ("gcc_all_pairs", "whiten"), SERVING_FORBID + ("delay_sum",))
+    _add(launches, counts)
+    hop = kw["hop"]
+    times = (np.arange(trk.warmup - 1, capture.shape[1] // hop) * hop
+             / tool.FS)[:pos.shape[0]]
+    err = _identity_errors(pos, tool.walker_truth(g["walkers"], times))
+    hops = capture.shape[1] // hop
+    ms, rtf = _per_hop(torch, lambda: trk.run(capture), hops, hop / tool.FS)
+    log(f"OnlineTracker compensated: mean error per talker "
+        f"{np.round(err.mean(0), 4).tolist()} m, associated "
+        f"{ok.mean():.2f}; warm {ms:.3f} ms a hop = {rtf:.1f}x real time "
+        f"{card_note()}")
+    if err.mean(0).max() > 0.1:
+        raise AssertionError(f"OnlineTracker errors {err.mean(0)}")
+
+
+def serving_phase(cf, torch, launches):
+    """Phase 11: the serving and tracking path (module docstring, 11)."""
+    import numpy as np
+    start = time.perf_counter()
+    tool = _load_tool("torch_serving_golden")
+    golden = json.loads(SERVING_GOLDEN.read_text())
+    with np.load(SERVING_BASES) as npz:
+        bases = {k: npz[k] for k in npz.files}
+    capture = serving_moving(cf, torch, tool, golden, bases, launches)
+    serving_trajectory(cf, torch, tool, golden, capture, launches)
+    mix = serving_walkers(cf, torch, tool, golden, bases, launches)
+    serving_streaming_gcc(cf, torch, launches)
+    serving_streams(cf, torch, tool, golden, mix, launches)
+    log(f"phase 11: {time.perf_counter() - start:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2798,8 +3266,8 @@ def main() -> int:
     # Phase 3: kernels against their plain versions.
     results = kernel_phase(cf, torch)
 
-    # Phases 4, 4b, 5, 6, 7, 8, 9 and 10: the main paths, each with its
-    # own launch counts.
+    # Phases 4, 4b, 5, 6, 7, 8, 9, 10 and 11: the main paths, each with
+    # its own launch counts.
     launches = {name: 0 for name in KERNELS}
     main_path_phase(cf, torch, slice_golden, sweep_golden, launches)
     options_phase(cf, torch, slice_golden, options_golden, launches)
@@ -2809,6 +3277,7 @@ def main() -> int:
     parity_phase(cf, torch, parity_golden, launches)
     narrowband_phase(cf, torch, nb_golden, sweep_golden, launches)
     recorded_phase(cf, torch, recorded_golden, sweep_golden, launches)
+    serving_phase(cf, torch, launches)
     log(f"launches over the main paths: {launches}")
     missing = [k for k in KERNELS if launches.get(k, 0) == 0]
     if missing:

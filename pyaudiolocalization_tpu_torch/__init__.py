@@ -15,8 +15,12 @@ Wiener front end, multi-source scenes), over nine hand-written CUDA
 kernels (ops/cuda_fft.py); recorded audio files (``use_simulation=
 False``: utils/audio_io.py, ops/resample.py), the reference-shaped
 ``compat`` layer with the IIR filters, and the checkpointed sweep
-(``parallel.run_sweep_checkpointed``).  The sweep's multi-card ``mesh=``
-raises ``NotImplementedError``.
+(``parallel.run_sweep_checkpointed``); and the serving path: the
+Welch-averaged GCC (``ops.gccphat.gcc_phat_streaming``), the online
+``models.online.StreamingLocalizer`` and ``OnlineTracker``, moving-source
+tracking (``models.tracking.localize_trajectory``, ``track_multiple``) and
+the moving render (``models.simulator.simulate_moving_source``).  The
+sweep's multi-card ``mesh=`` raises ``NotImplementedError``.
 """
 
 from .api import (  # noqa: F401

@@ -13,8 +13,14 @@ evaluates the attenuation law at every rfft bin of either render
 (``scene_path_slopes``, gains referenced at f = 0): the JAX package renders
 such scenes on XLA, never through its Pallas render, which synthesizes
 scalar gains only (models/simulator.py:135-143 there), so here they are
-plain PyTorch on either device and never reach K3.  The moving-source
-render belongs to a later slice.
+plain PyTorch on either device and never reach K3.
+
+``simulate_moving_source`` is the moving source's WOLA render: Hann
+frames of the base (one ``unfold``), each rendered at the static delay and
+gain of the source's position at the frame's centre, then overlap-added.
+The frames are the scene axis of one ``ops/delay.delay_and_sum`` call at
+the pow2-circular length, so the card renders every frame in one K3 launch
+(or one a ``cuda_fft.scene_chunk``); the overlap-add is ``fold``.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from ..ops import noise as noise_ops
 from ..ops import signal as sig_ops
 from ..ops.delay import delay_and_sum, fade_window
 from ..ops.fftutils import next_pow2
+from ..utils.device import resolve_device
 from . import acoustics
 
 AIR_ID = 0  # MaterialTable guarantees the fallback material at row 0.
@@ -326,3 +333,131 @@ def simulate_signals_fast(source_pos, mic_positions, fs: float, c: float,
     return render_scene(base, paths.delays, paths.gains, fs, total_samples,
                         out_samples, pad_mode="pow2", finalize=True,
                         freq_slopes=slopes)
+
+
+def _moving_margins(start_pos, velocity, mic_positions, fs: float, c: float,
+                    duration: float, frame: int):
+    """(budget, lead) of the moving render, in samples, on the host: the
+    longest propagation delay over the capture padded by one second of
+    travel either side (|p(t) - mic| is convex in t, so its maximum is at
+    an end), and the lead/tail margin ``frame + budget`` that the WOLA sum
+    needs to reach its steady state with the delay absorbed."""
+    if frame < 64 or frame % 2:
+        raise ValueError("frame must be an even length >= 64")
+    s0 = np.asarray(start_pos, float)
+    v0 = np.asarray(velocity, float)
+    mics = np.asarray(mic_positions, float)
+    d_ends = [np.linalg.norm(s0 + tt * v0 - mics, axis=-1)
+              for tt in (-1.0, float(duration) + 1.0)]
+    budget = int(np.ceil(float(np.max(d_ends)) / float(c) * fs)) + 2
+    lead = frame + budget
+    if lead > int(fs):
+        raise ValueError("scene too distant for the moving render: the "
+                         "propagation delay budget exceeds 1 s")
+    return budget, lead
+
+
+def _moving_base(signal_type: str, freq, fs: float, duration: float,
+                 lead: int, generator: Optional[torch.Generator], dtype,
+                 device) -> torch.Tensor:
+    """The moving render's base signal, ``duration`` plus both margins
+    long (the JAX package's ``_base_signal``, models/simulator.py:262
+    there)."""
+    return sig_ops.generate_signal(
+        signal_type, fs, duration + 2.0 * lead / fs,
+        torch.as_tensor(freq, dtype=dtype, device=device),
+        generator=generator, dtype=dtype, device=device)
+
+
+def _render_moving(base: torch.Tensor, start_pos, velocity, mic_positions,
+                   fs: float, c: float, frame: int, budget: int, lead: int,
+                   freq, absorption: float, freq_slope: float
+                   ) -> torch.Tensor:
+    """WOLA render of ``base`` (the margins included) -> (M, len(base) -
+    2 * lead): periodic-Hann frames every frame / 2, each delayed and
+    scaled per mic at the source's position at the frame's centre (all
+    frames in one ``delay_and_sum`` over a scene axis), overlap-added,
+    divided by the window sum and trimmed to the steady-state interior."""
+    dt, dev = base.dtype, base.device
+    hop = frame // 2
+    start = torch.as_tensor(np.asarray(start_pos), dtype=dt, device=dev)
+    vel = torch.as_tensor(np.asarray(velocity), dtype=dt, device=dev)
+    mics = torch.as_tensor(np.asarray(mic_positions), dtype=dt, device=dev)
+    t_gen = base.shape[-1]
+    t_out = t_gen - 2 * lead
+    num_frames = max(1, -(-t_gen // hop))
+    pad_base = torch.nn.functional.pad(base,
+                                       (0, num_frames * hop + frame - t_gen))
+    # Periodic Hann: at 50 % overlap the interior window sum is exactly 1.
+    n_idx = torch.arange(frame, dtype=dt, device=dev)
+    win = 0.5 * (1.0 - torch.cos(2.0 * np.pi * n_idx / frame))
+    frames = pad_base.unfold(-1, frame, hop)[:num_frames] * win  # (K, frame)
+    # The source at each frame's centre (the generated time starts
+    # ``lead`` samples before the first output sample).
+    starts = np.arange(num_frames) * hop
+    t_c = torch.as_tensor((starts + frame / 2.0 - lead) / fs, dtype=dt,
+                          device=dev)
+    pos_k = start[None, :] + t_c[:, None] * vel[None, :]          # (K, 3)
+    d_k = torch.linalg.norm(pos_k[:, None, :] - mics[None, :, :],
+                            dim=-1)                               # (K, M)
+    la = acoustics.log_attenuation(
+        d_k, AIR_ID, torch.as_tensor(freq, dtype=dt, device=dev),
+        torch.as_tensor([absorption], dtype=dt, device=dev),
+        torch.as_tensor([freq_slope], dtype=dt, device=dev))
+    gains = torch.exp(la - torch.amax(la))
+    total = frame + budget
+    rendered = delay_and_sum(
+        torch.nn.functional.pad(frames, (0, total - frame)),
+        (d_k / c)[..., None], gains[..., None], fs,
+        pad_mode="pow2-circular")                                 # (K, M, T)
+    m = mics.shape[0]
+    t_full = int(starts[-1]) + total
+    out = torch.nn.functional.fold(
+        rendered.permute(1, 2, 0).reshape(1, m * total, num_frames),
+        (1, t_full), (1, total), stride=(1, hop))[0, :, 0]       # (M, T)
+    wsum = torch.nn.functional.fold(
+        win[None, :, None].expand(1, frame, num_frames),
+        (1, t_full - total + frame), (1, frame), stride=(1, hop))[0, 0, 0]
+    return (out[:, lead:lead + t_out]
+            / torch.clamp(wsum[lead:lead + t_out], min=1e-3))
+
+
+def simulate_moving_source(start_pos, velocity, mic_positions, fs: float,
+                           c: float, duration: float = 1.0,
+                           signal_type: str = "noise", freq: float = 1000.0,
+                           frame: int = 1024,
+                           generator: Optional[torch.Generator] = None,
+                           snr_db=None, finalize: bool = True,
+                           absorption: float = 0.01,
+                           freq_slope: float = 1e-6, dtype=None,
+                           device=None) -> torch.Tensor:
+    """(M, int(duration * fs)) mic signals of a source moving at constant
+    ``velocity`` from ``start_pos`` (its position at the first output
+    sample), the JAX package's ``simulate_moving_source``
+    (models/simulator.py:341 there): the WOLA render of ``_render_moving``
+    with frames of ``frame`` samples, direct path only, per-mic gains by
+    the carrier-frequency log-attenuation law with physical air defaults
+    (``absorption`` per metre, ``freq_slope`` per Hz and metre), referenced
+    to the strongest (mic, frame); then per-mic normalize and compression
+    (``finalize``) and white noise at ``snr_db`` from ``generator``.  The
+    stochastic signal types draw the base from ``generator`` too.  Runs on
+    ``device`` (``utils.device.resolve_device``: the card unless named)."""
+    dev = resolve_device(device)
+    dt = dtype if dtype is not None else torch.get_default_dtype()
+    budget, lead = _moving_margins(start_pos, velocity, mic_positions, fs,
+                                   c, duration, frame)
+    if snr_db is not None and generator is None:
+        raise ValueError("snr_db requires a torch.Generator")
+    base = _moving_base(signal_type, freq, fs, duration, lead, generator,
+                        dt, dev)
+    out = _render_moving(base, start_pos, velocity, mic_positions, fs, c,
+                         frame, budget, lead, freq, absorption, freq_slope)
+    if finalize:
+        out = sig_ops.dynamic_range_compression(sig_ops.normalize_signal(out))
+    if snr_db is not None:
+        rms = torch.sqrt(torch.mean(out * out, -1, keepdim=True))
+        sigma = rms * 10.0 ** (-torch.as_tensor(snr_db, dtype=dt,
+                                                device=dev) / 20.0)
+        out = out + sigma * torch.randn(out.shape, generator=generator,
+                                        dtype=dt, device=dev)
+    return out

@@ -21,7 +21,14 @@ length it takes the unfused route.  Parity mode's exact length 2n - 1 is
 never a power of two, so its correlations always take the unfused route
 (K7).  On the CPU the kernels' plain twins run.  Both lag conventions are
 here: the reference's positional axis (``lags_reference``, SURVEY.md Q1)
-and the physical decoding.  Streaming GCC belongs to a later slice.
+and the physical decoding.
+
+``gcc_phat_streaming`` is the Welch-averaged GCC of long captures: Hann
+(or rectangular) frames cut by one ``unfold``, the mean cross and auto
+spectra over frames, any weighting (PHAT through K7 on a CUDA tensor, as
+parity mode's; the JAX package whitens on XLA there by default), the
+inverse at the frame length and the centred +-``max_lag`` slice.
+``tdoa_from_streaming`` reads its peak with parabolic refinement.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device
 from . import cuda_fft
 from .fftutils import fft_length, irfft_n, rfft_n
 
@@ -47,24 +55,24 @@ def _is_pow2(n: int) -> bool:
     return n >= 4 and not n & (n - 1)
 
 
-def _weighted_cross(s_i: torch.Tensor, s_j: torch.Tensor, weighting: str,
-                    eps: float) -> torch.Tensor:
-    """s_i * conj(s_j) under a GCC frequency weighting.  PHAT whitens the
-    fresh cross-spectrum in place through kernel K7 (its twin on the CPU);
-    the other weightings are plain tensor arithmetic over the channels'
-    auto power spectra."""
+def _weight_cross(cross: torch.Tensor, auto_i: Optional[torch.Tensor],
+                  auto_j: Optional[torch.Tensor], weighting: str, eps: float,
+                  inplace: bool = False) -> torch.Tensor:
+    """A cross-spectrum under a GCC frequency weighting; ``auto_i`` /
+    ``auto_j`` are the channels' (real, >= 0) auto power spectra on the
+    same bins, read only by the weightings that need them.  PHAT whitens
+    through kernel K7 (its twin on the CPU), in place only with
+    ``inplace`` (for a caller that owns ``cross`` and reads it no more);
+    the other weightings are plain tensor arithmetic."""
     if weighting not in GCC_WEIGHTINGS:
         raise ValueError(f"unknown GCC weighting {weighting!r}; expected one "
                          f"of {GCC_WEIGHTINGS}")
-    cross = s_i * torch.conj(s_j)
     if weighting == "phat":
-        return cuda_fft.whiten(cross.contiguous(), eps, inplace=True)
+        return cuda_fft.whiten(cross.contiguous(), eps, inplace=inplace)
     if weighting == "cc":
         return cross
-    auto_i = s_i.real ** 2 + s_i.imag ** 2
     if weighting == "roth":
         return cross / (auto_i + eps)
-    auto_j = s_j.real ** 2 + s_j.imag ** 2
     if weighting == "scot":
         return cross / (torch.sqrt(auto_i * auto_j) + eps)
     mag2 = cross.real ** 2 + cross.imag ** 2                    # 'ml'
@@ -72,6 +80,21 @@ def _weighted_cross(s_i: torch.Tensor, s_j: torch.Tensor, weighting: str,
     coh2 = torch.clamp(mag2 / torch.clamp(auto_i * auto_j, min=eps),
                        max=1.0 - 1e-4)
     return cross * (coh2 / (torch.sqrt(mag2) * (1.0 - coh2) + eps))
+
+
+def _auto(spec: torch.Tensor) -> torch.Tensor:
+    return spec.real ** 2 + spec.imag ** 2
+
+
+def _weighted_cross(s_i: torch.Tensor, s_j: torch.Tensor, weighting: str,
+                    eps: float) -> torch.Tensor:
+    """s_i * conj(s_j) under a GCC frequency weighting (``_weight_cross``);
+    PHAT whitens the fresh cross-spectrum in place."""
+    ratio = weighting not in ("phat", "cc")
+    return _weight_cross(s_i * torch.conj(s_j),
+                         _auto(s_i) if ratio else None,
+                         _auto(s_j) if ratio else None, weighting, eps,
+                         inplace=True)
 
 
 def phat_correlation(sig1: torch.Tensor, sig2: torch.Tensor,
@@ -135,6 +158,87 @@ def gcc_phat_all_pairs(signals: torch.Tensor,
     if band is not None:
         white = white * mask
     return irfft_n(white, n).to(signals.dtype)
+
+
+def gcc_phat_streaming(signals, pairs_i: Sequence[int],
+                       pairs_j: Sequence[int], frame: int = 8192,
+                       hop: Optional[int] = None,
+                       max_lag: Optional[int] = None, eps: float = PHAT_EPS,
+                       window: str = "hann", weighting: str = "phat",
+                       device=None) -> Tuple[torch.Tensor, np.ndarray]:
+    """Blockwise (Welch-averaged) GCC of long recordings, the JAX
+    package's ``gcc_phat_streaming`` (ops/gccphat.py:183 there): frames of
+    ``frame`` samples (a power of two) every ``hop`` (default frame // 2),
+    Hann-windowed or ``window='rect'``; the cross and auto power spectra
+    averaged over frames; ``weighting`` (GCC_WEIGHTINGS: 'ml' is
+    meaningful here, its coherence estimate being averaged) applied to the
+    averages; the inverse at ``frame``.  signals (..., M, T) go to
+    ``device`` (``utils.device.resolve_device``: the card unless named).
+    Returns (corr (..., P, 2 * max_lag + 1) with lag 0 centred, lags
+    (2 * max_lag + 1,)); ``max_lag`` defaults to frame // 4 and must lie
+    in (0, frame // 2)."""
+    if frame & (frame - 1):
+        raise ValueError("frame must be a power of two")
+    hop = frame // 2 if hop is None else hop
+    max_lag = frame // 4 if max_lag is None else max_lag
+    if not 0 < max_lag < frame // 2:
+        # The centred slice needs 2 * max_lag + 1 <= frame, and at
+        # frame // 2 the +max_lag label would alias -max_lag.
+        raise ValueError("max_lag must be in (0, frame//2)")
+    if window not in ("hann", "rect"):
+        raise ValueError("window must be 'hann' or 'rect'")
+    if weighting not in GCC_WEIGHTINGS:
+        raise ValueError(f"unknown GCC weighting {weighting!r}; expected one "
+                         f"of {GCC_WEIGHTINGS}")
+    dev = resolve_device(device)
+    x = (signals.to(dev) if torch.is_tensor(signals)
+         else torch.as_tensor(np.array(signals), device=dev))
+    t = x.shape[-1]
+    if t < frame:
+        raise ValueError("signal shorter than one frame")
+    num_frames = 1 + (t - frame) // hop
+    if window == "hann":
+        n_ = torch.arange(frame, dtype=x.dtype, device=x.device)
+        win = 0.5 - 0.5 * torch.cos(2.0 * np.pi * n_ / frame)
+    else:
+        win = torch.ones(frame, dtype=x.dtype, device=x.device)
+    frames = x.unfold(-1, frame, hop)[..., :num_frames, :] * win
+    spec = torch.fft.rfft(frames, n=frame)                 # (..., M, F, bins)
+    pi = torch.as_tensor(np.asarray(pairs_i), dtype=torch.long,
+                         device=x.device)
+    pj = torch.as_tensor(np.asarray(pairs_j), dtype=torch.long,
+                         device=x.device)
+    cross = torch.mean(spec[..., pi, :, :] * torch.conj(spec[..., pj, :, :]),
+                       -2)                                 # (..., P, bins)
+    auto_i = auto_j = None
+    if weighting not in ("phat", "cc"):
+        auto = torch.mean(_auto(spec), -2)                 # (..., M, bins)
+        auto_i, auto_j = auto[..., pi, :], auto[..., pj, :]
+    # The mean is a fresh tensor that nothing reads again.
+    white = _weight_cross(cross, auto_i, auto_j, weighting, eps,
+                          inplace=True)
+    corr = torch.fft.irfft(white, n=frame).to(x.dtype)
+    centred = torch.roll(corr, max_lag, -1)[..., :2 * max_lag + 1]
+    return centred, np.arange(-max_lag, max_lag + 1)
+
+
+def tdoa_from_streaming(corr: torch.Tensor, lags, fs: float) -> torch.Tensor:
+    """Peak lag (seconds) of a centred streaming correlation, refined by a
+    parabola through the peak and its neighbours (a peak on an edge keeps
+    its whole lag)."""
+    idx = torch.argmax(corr, -1)
+    i = torch.clamp(idx, 1, corr.shape[-1] - 2)
+    ym = torch.gather(corr, -1, (i - 1)[..., None])[..., 0]
+    y0 = torch.gather(corr, -1, i[..., None])[..., 0]
+    yp = torch.gather(corr, -1, (i + 1)[..., None])[..., 0]
+    denom = ym - 2.0 * y0 + yp
+    frac = torch.where(torch.abs(denom) > 1e-12,
+                       0.5 * (ym - yp) / torch.where(
+                           denom == 0, torch.ones_like(denom), denom),
+                       torch.zeros_like(denom))
+    base = torch.as_tensor(np.asarray(lags), dtype=corr.dtype,
+                           device=corr.device)[idx]
+    return (base + torch.where(idx == i, frac, torch.zeros_like(frac))) / fs
 
 
 def lags_reference(n1: int, n2: int, n: int) -> np.ndarray:

@@ -1269,3 +1269,100 @@ def test_checkpointed_sweep_resumes_to_the_bit_on_the_card(cuda, tmp_path):
     resumed = run_sweep_checkpointed(spec, 4, 192, 64, part, device=cuda)
     for a, b in zip(resumed.results, full.results):
         np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The serving path's shapes: K1 over segments x subframes, K3 over the
+# moving render's frames, K7 on the stream's EMA cross-spectra
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,m,length,nfft", [
+    ((15, 8), 4, 512, 1024),      # tracking subframes (segment 4096)
+    ((12, 8), 8, 256, 512),       # crossing walkers' subframes, 8 mics
+    ((15,), 4, 4096, 4096),       # tracking segments
+    ((1, 8), 4, 256, 512)])       # the stream's live frame
+def test_gcc_all_pairs_over_two_leading_axes(cuda, lead, m, length, nfft):
+    g = _gen(cuda, 14)
+    sig = torch.randn(lead + (m, length), generator=g, device=cuda)
+    pi, pj = _pairs(m)
+    mask = cf.band_mask(nfft, None, 16000.0, device=cuda)
+    got = cf.gcc_all_pairs(sig, pi, pj, nfft, mask)
+    want = cf.gcc_all_pairs_plain(sig, pi, pj, nfft, mask)
+    torch.cuda.synchronize()
+    assert got.shape == lead + (len(pi), nfft)
+    assert float((got - want).abs().max()) < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames,m,total,nfft", [(130, 4, 650, 1024),
+                                                 (700, 8, 4200, 8192)])
+def test_delay_sum_over_moving_render_frames(cuda, frames, m, total, nfft):
+    """K3 with the frames of a moving render as scenes: one path a mic,
+    no finalize, the faded circular render at next_pow2(frame + budget)."""
+    g = _gen(cuda, 15)
+    base = torch.zeros((frames, total), device=cuda)
+    base[:, :total // 2] = torch.randn((frames, total // 2), generator=g,
+                                       device=cuda)
+    tau = torch.rand((frames, m, 1), generator=g, device=cuda) * total / 2
+    gains = torch.rand((frames, m, 1), generator=g, device=cuda)
+    fade = fade_window(total, dtype=torch.float32, device=cuda)
+    got = cf.delay_sum(base, tau, gains, nfft, total, fade, False)
+    want = cf.delay_sum_plain(base, tau, gains, nfft, total, fade, False)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) < 2e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(6, 4097), (28, 2049)])
+def test_whiten_at_the_stream_shapes(cuda, shape):
+    g = _gen(cuda, 16)
+    spec = torch.complex(torch.randn(shape, generator=g, device=cuda),
+                         torch.randn(shape, generator=g, device=cuda))
+    got = cf.whiten(spec)
+    want = cf.whiten_plain(spec)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_serving_paths_on_the_card_match_the_cpu(cuda):
+    """The moving render (K3) of one noise base, streaming GCC (K7),
+    localize_trajectory (K1) and a stream's run (K7) on the card against
+    the same calls on the CPU, float32."""
+    from pyaudiolocalization_tpu_torch.models import online, simulator
+    from pyaudiolocalization_tpu_torch.models import tracking
+    mics = np.array([[0.0, 0.0, 0.0], [3.0, 0.0, 0.0], [1.5, 3.0, 0.0],
+                     [1.5, 1.5, 2.0]])
+    fs, c, start, vel = 16000.0, 343.0, [0.8, 1.2, 0.7], [1.5, 0.4, 0.0]
+    budget, lead = simulator._moving_margins(start, vel, mics, fs, c, 1.0,
+                                             512)
+    base = simulator._moving_base("noise", 1000.0, fs, 1.0, lead,
+                                  torch.Generator().manual_seed(0),
+                                  torch.float32, "cpu")
+    args = (start, vel, mics, fs, c, 512, budget, lead, 1000.0, 0.01, 1e-6)
+    cf.reset_launches()
+    card = simulator._render_moving(base.to(cuda), *args)
+    cpu = simulator._render_moving(base, *args)
+    assert cf.LAUNCHES["delay_sum"] == 1
+    assert float((card.cpu() - cpu).abs().max()) < 1e-4 * float(
+        cpu.abs().max())
+    pi, pj = _pairs(4)
+    corr, lags = gccphat.gcc_phat_streaming(card, pi, pj, frame=2048)
+    want, _ = gccphat.gcc_phat_streaming(cpu, pi, pj, frame=2048,
+                                         device="cpu")
+    assert cf.LAUNCHES["whiten"] == 1
+    assert float((corr.cpu() - want).abs().max()) < 1e-4
+    track = tracking.localize_trajectory(card, mics, fs, c, [0, 0, 0],
+                                         [3.2, 3.2, 2.2], segment=4096,
+                                         coarse_n=32, fine_n=12,
+                                         smoother="kalman")
+    assert cf.LAUNCHES["gcc_all_pairs"] == 1
+    truth = np.asarray(start) + track.times.cpu().numpy()[:, None] * vel
+    err = np.linalg.norm(track.positions.cpu().numpy() - truth, axis=-1)
+    assert np.median(err) < 0.1, err
+    loc = online.StreamingLocalizer(mics, fs, c, [0, 0, 0], [3.2, 3.2, 2.2],
+                                    frame=4096, hop=1024)
+    pos, _ = loc.run(cpu.numpy())
+    assert cf.LAUNCHES["whiten"] == 1 + cpu.shape[1] // 1024
+    assert np.isfinite(pos).all()

@@ -176,7 +176,8 @@ def test_fade_window_and_delay_and_sum_match_jax(rng):
 
 def test_port_imports_without_jax():
     """Every module of the port (the compat layer, the audio reader, the
-    resampler, the checkpointed sweep and the profiling hooks named), the
+    resampler, the checkpointed sweep, the profiling hooks, tracking and
+    the online localizer named), the
     numpy scene builder that ``chip_smoke.py`` loads from
     tools/torch_sweep_golden.py, and K10's A/B bench
     (tools/torch_rowdft_bench.py) import with jax blocked."""
@@ -190,7 +191,7 @@ def test_port_imports_without_jax():
         "    importlib.import_module(name)\n"
         "for name in ('compat', 'utils.audio_io', 'utils.flac', "
         "'utils.vorbis', 'ops.resample', 'parallel.checkpoint', "
-        "'utils.profiling'):\n"
+        "'utils.profiling', 'models.tracking', 'models.online'):\n"
         "    assert pkg.__name__ + '.' + name in names, name\n"
         "spec = importlib.util.spec_from_file_location('golden', "
         "'tools/torch_sweep_golden.py')\n"

@@ -296,3 +296,181 @@ def test_compat_single_pair_routes_by_length(launches, n2, want):
                                 rng.standard_normal(n2), 8000.0,
                                 lag_mode="physical", device="cpu")
     assert [n for n, _ in launches] == want
+
+
+# ---------------------------------------------------------------------------
+# The serving path: streaming GCC, the moving render, tracking, the stream
+# ---------------------------------------------------------------------------
+
+TETRA = np.array([[0.0, 0.0, 0.0], [1.2, 0.0, 0.0], [0.6, 1.2, 0.0],
+                  [0.6, 0.6, 1.0]])
+BOX = (np.zeros(3), np.array([1.2, 1.2, 1.0]))
+
+
+def _noise(m, n, seed=0):
+    return np.random.default_rng(seed).standard_normal((m, n)).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("weighting,want", [("phat", ["whiten"]),
+                                            ("ml", []), ("scot", [])])
+def test_streaming_gcc_whitens_through_k7(launches, weighting, want):
+    """PHAT whitens the Welch-averaged cross-spectra (a fresh tensor) in
+    one K7 launch over every pair's bins; the ratio weightings launch no
+    kernel."""
+    from pyaudiolocalization_tpu_torch.ops import gccphat
+    pi, pj = np.triu_indices(4, 1)
+    corr, _ = gccphat.gcc_phat_streaming(_noise(4, 8192), pi, pj,
+                                         frame=2048, weighting=weighting,
+                                         device="cpu")
+    assert corr.shape == (6, 1025)
+    assert [n for n, _ in launches] == want
+    if want:
+        (args,) = _named(launches, "whiten")
+        assert args[1] == 6 * 1025
+
+
+def test_moving_render_is_one_k3_launch_over_its_frames(launches):
+    """simulate_moving_source in float32: every WOLA frame a scene of one
+    K3 launch (1 path a mic, pow2-circular at next_pow2(frame + budget), no
+    finalize in the kernel)."""
+    from pyaudiolocalization_tpu_torch.models import simulator
+    from pyaudiolocalization_tpu_torch.ops.fftutils import next_pow2
+    start, vel = np.array([0.3, 0.4, 0.3]), np.array([1.0, 0.2, 0.0])
+    out = simulator.simulate_moving_source(start, vel, TETRA, 16000.0,
+                                           343.0, 0.25, "chirp", frame=512,
+                                           dtype=torch.float32, device="cpu")
+    assert out.shape == (4, 4000)
+    (args,) = _named(launches, "delay_sum")
+    budget, lead = simulator._moving_margins(start, vel, TETRA, 16000.0,
+                                             343.0, 0.25, 512)
+    frames = -(-(4000 + 2 * lead) // 256)
+    total = 512 + budget
+    # (base, scenes, length, tau, gains, mics, paths, nfft, n1, out, fade,
+    #  finalize, ...)
+    assert args[1] == frames and args[2] == total
+    assert args[5:8] == (4, 1, next_pow2(total)) and args[9] == total
+    assert args[11] == 0
+    assert [n for n, _ in launches] == ["delay_sum"]
+
+
+def test_moving_render_over_the_chunk_limit_launches_per_chunk(launches):
+    """A render with more frames than one launch's grid takes (scene
+    chunks at 8 mics) launches K3 once per ``cuda_fft.scene_chunk``."""
+    from pyaudiolocalization_tpu_torch.models import simulator
+    cube = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1], [1, 1, 0],
+                     [1, 0, 1], [0, 1, 1], [1, 1, 1]], float)
+    chunk = cf.scene_chunk(10 ** 6, 8)
+    fs = 8000.0
+    # A still source: the margins do not depend on the duration.
+    _, lead = simulator._moving_margins([0.5] * 3, [0.0] * 3, cube, fs,
+                                        343.0, 1.0, 64)
+    duration = ((chunk + 3) * 32 - 2 * lead) / fs
+    simulator.simulate_moving_source(
+        [0.5] * 3, [0.0] * 3, cube, fs, 343.0, duration, "sine", frame=64,
+        dtype=torch.float32, device="cpu")
+    chunks = [a[1] for a in _named(launches, "delay_sum")]
+    assert chunks == [chunk, 3] or chunks == [chunk, 4], chunks
+
+
+@pytest.mark.parametrize("weighting,segment,k1", [
+    ("phat", 2048, 1), ("phat", 3000, 1), ("scot", 2048, 0)])
+def test_trajectory_runs_k1_over_its_segments(launches, weighting, segment,
+                                              k1):
+    """localize_trajectory 'srp': PHAT is one K1 launch over every segment
+    at next_pow2(segment) (a 3,000-sample segment at 4,096); another
+    weighting takes the unfused GCC and launches nothing."""
+    from pyaudiolocalization_tpu_torch.models import tracking
+    tracking.localize_trajectory(_noise(4, 12000), TETRA, 16000.0, 343.0,
+                                 *BOX, segment=segment, coarse_n=6, fine_n=4,
+                                 weighting=weighting, device="cpu")
+    runs = _named(launches, "gcc_all_pairs")
+    assert len(runs) == k1 and len(launches) == k1
+    if k1:
+        segments = 1 + (12000 - segment) // (segment // 2)
+        assert runs[0][1:5] == (segments, 4, segment, 4096 if segment == 3000
+                                else 2048)
+
+
+@pytest.mark.parametrize("nfft,want", [(2048, ["gcc_all_pairs"]),
+                                       (3000, ["whiten"])])
+def test_gcc_over_segment_axes_needs_a_power_of_two(launches, nfft, want):
+    """The all-pairs GCC over (segments, subframes) axes launches K1 only
+    at a power-of-two length; at another length it takes the unfused
+    branch, whose PHAT is one K7 launch over every pair's bins."""
+    from pyaudiolocalization_tpu_torch.ops import gccphat
+    pi, pj = np.triu_indices(4, 1)
+    x = torch.as_tensor(_noise(4, 1500 * 6)).reshape(3, 2, 4, 1500)
+    gccphat.gcc_phat_all_pairs(x, pi, pj, nfft=nfft)
+    assert [n for n, _ in launches] == want
+
+
+def test_compensated_tracking_runs_k1_over_segments_and_subframes(launches):
+    """motion='compensated': one K1 launch over (segments x subframes) rows
+    of subframes at next_pow2(2 * subframe), for localize_trajectory and
+    for track_multiple; the stream's compensated step one a hop over its
+    frame's subframes, besides the K7 of its EMA."""
+    from pyaudiolocalization_tpu_torch.models import online, tracking
+    sigs = _noise(4, 8192)
+    tracking.localize_trajectory(sigs, TETRA, 16000.0, 343.0, *BOX,
+                                 segment=2048, coarse_n=6, fine_n=4,
+                                 motion="compensated", max_speed=2.0,
+                                 device="cpu")
+    (args,) = _named(launches, "gcc_all_pairs")
+    assert args[1:5] == (7 * 8, 4, 256, 512)
+    launches.clear()
+    tracking.track_multiple(sigs, TETRA, 16000.0, 343.0, *BOX,
+                            num_sources=2, segment=2048, hop=2048,
+                            coarse_n=6, fine_n=4, motion="compensated",
+                            max_speed=2.0, motion_iterations=1,
+                            device="cpu")
+    (args,) = _named(launches, "gcc_all_pairs")
+    assert args[1:5] == (4 * 8, 4, 256, 512)
+    launches.clear()
+    loc = online.StreamingLocalizer(TETRA, 16000.0, 343.0, *BOX, frame=2048,
+                                    hop=1024, num_sources=2, coarse_n=6,
+                                    fine_n=4, motion="compensated",
+                                    max_speed=2.0, device="cpu")
+    online.OnlineTracker(loc, max_speed=2.0).run(sigs)
+    names = [n for n, _ in launches]
+    assert names.count("gcc_all_pairs") == names.count("whiten") == 8
+    assert _named(launches, "gcc_all_pairs")[0][1:5] == (8, 4, 256, 512)
+
+
+@pytest.mark.parametrize("motion", ["static", "compensated"])
+def test_track_multiple_launches_k1_once(launches, motion):
+    from pyaudiolocalization_tpu_torch.models import tracking
+    tracking.track_multiple(_noise(4, 8192), TETRA, 16000.0, 343.0, *BOX,
+                            num_sources=2, segment=2048, coarse_n=6,
+                            fine_n=4, motion=motion, max_speed=2.0,
+                            suppression="claim", device="cpu")
+    assert [n for n, _ in launches] == ["gcc_all_pairs"]
+
+
+@pytest.mark.parametrize("kw,want", [
+    (dict(), "whiten"), (dict(num_sources=2), "whiten"),
+    (dict(num_sources=2, suppression="claim"), "whiten"),
+    (dict(weighting="ml"), None), (dict(method="capon"), None),
+    (dict(method="music", num_sources=2), None)])
+def test_stream_step_whitens_a_new_tensor_through_k7(launches, kw, want):
+    """The srp stream's PHAT step is one K7 launch a hop, out of place on a
+    complex tensor built from the EMA planes (they are real tensors that
+    the next hop reads); the other weightings and the narrowband methods
+    launch nothing."""
+    from pyaudiolocalization_tpu_torch.models import online
+    loc = online.StreamingLocalizer(TETRA, 16000.0, 343.0, *BOX, frame=1024,
+                                    hop=512, coarse_n=6, fine_n=4,
+                                    device="cpu", **kw)
+    state = loc.init_state()
+    sigs = _noise(4, 4096)
+    for s in range(8):
+        state = loc.step(state, sigs[:, s * 512:(s + 1) * 512]).state
+    runs = _named(launches, "whiten")
+    assert len(launches) == (8 if want else 0) == len(runs)
+    for args in runs:
+        assert args[1] == 6 * 513 and args[0] != args[3]
+    if runs:
+        # The last hop's input lived beside the planes it was built from
+        # (earlier hops' memory may since hold other tensors).
+        assert runs[-1][0] not in (state.cross_r.data_ptr(),
+                                   state.cross_i.data_ptr())
