@@ -3,7 +3,7 @@
 
 Drives the port's main paths on ``cuda`` at full width (4 mics, 44.1 kHz,
 1 s, nfft 65,536; the narrowband trio's 8-mic cube at 16 kHz x 0.25 s),
-in eleven phases:
+in twelve phases:
 
 1. device report (``nvidia-smi`` name and power limit);
 2. build of the kernels from ``pyaudiolocalization_tpu_torch/csrc``;
@@ -28,7 +28,9 @@ in eleven phases:
    call runs, held to their schedule: K1 3 on the split, 1 in one block,
    and 11 mics at 65,536 on the passes; K9 2 and 1, also at 131,072;
    phase 11's shapes: K1 over segments x subframes, K3 over the moving
-   render's 132 frames, K7 at 6 x 4,097 and 28 x 2,049 bins);
+   render's 132 frames, K7 at 6 x 4,097 and 28 x 2,049 bins; phase 12's:
+   K1 over array calibration's 8 x 4 and 12 x 6 events of 4,800 samples
+   at 16,384);
    for K10's three kernels (``ops/rowdft.py``) the cases phase 7 does not
    run: the
    inverse, rep = 8 and zero_top at n2 = 64 and 1024, the lane DFT's
@@ -157,6 +159,31 @@ in eleven phases:
    median), and ``OnlineTracker`` over the compensated stream on the
    crossing walkers (K1, K7), within 0.1 m a talker; ms a hop warm and the
    real-time factor, beside the card's name and power limit.
+12. beamformed extraction, array calibration and the mesh, against
+   ``tests/data/torch_extraction_golden.json`` and the JAX-drawn bases of
+   ``tests/data/torch_extraction_bases.npz``
+   (``extraction_calibration_mesh_phase``): EVALUATION.md's extraction
+   protocol at full size (8-mic cube, 16 kHz, frame 256, hop 64, three
+   scenes, white-noise and 1 kHz sine interferers at 0.25 s and 1.0 s;
+   renders K3, extraction no kernel): delay-and-sum, MVDR (taps 1) and
+   LCMV (taps 3) SIR within 0.5 dB and target gain within 0.02 of the
+   float64 golden, the sine rows' MVDR more than 10 dB above
+   delay-and-sum, warm ms a call; ``calibrate_array_geometry`` on
+   examples/calibrate_array_geometry.py's scene (tetrahedron, 8 events at
+   48 kHz x 0.1 s, survey seed 11) at ``nfft=None`` (K7) and 16,384 (one
+   K1 launch over the events): TDOAs equal to the golden's where its
+   margins are clear, positions within 1e-4 m, worst-mic error at most 3
+   mm; the 6-mic, 12-event self-calibration with the golden's k-means
+   seeds, its worst inter-mic distance error within 1 mm of the golden's
+   and its positions no farther from float64 than the JAX package's
+   float32 run's plus 5 mm;
+   a one-rank NCCL mesh in this process, ``bench_full_sweep``'s 512
+   scenes (K5) equal to ``run_sweep_checkpointed(..., 512, 512)`` to the
+   bit; two spawned gloo ranks sharing the card, 256 scenes each (K5),
+   each shard equal to its chunk of ``run_sweep_checkpointed(..., 512,
+   256)`` and both summaries equal; scenes/s over five alternated warm
+   repeats of the meshed and the mesh-less sweep, and one profiled call of
+   each (one card: no multi-card rate).
 
 Every path runs with the launch counts set to 0 just before it and read
 just after; each must have launched its kernels.  Any failure raises, and
@@ -214,7 +241,9 @@ ADDED = {("delay_sum", "odd"): 1, ("gcc_windowed", "odd"): 1,
          ("gcc_windowed", "chunks"): 3, ("scene_windowed", "chunks"): 3,
          ("delay_sum", "narrowband"): 4, ("gcc_all_pairs", "subframes"): 5,
          ("gcc_all_pairs", "walkers"): 5, ("delay_sum", "moving"): 5,
-         ("whiten", "stream"): 5, ("whiten", "stream28"): 5}
+         ("whiten", "stream"): 5, ("whiten", "stream28"): 5,
+         ("gcc_all_pairs", "calibration"): 6,
+         ("gcc_all_pairs", "calibration6"): 6}
 # The sweep across K2's, K3's and K5's scene-chunk boundary: one scene past
 # the 65,535 grid rows of one launch at 4 mics (3 couples), at nfft 512.
 CHUNK_SCENES = 21846
@@ -698,6 +727,27 @@ def kernel_phase(cf, torch):
             f"{device_ms(lambda: cf.whiten(spec), 50)['total']:.4f} ms, "
             f"torch.sgn "
             f"{device_ms(lambda: torch.sgn(spec), 50)['total']:.4f} ms")
+
+    # Phase 12's shapes: K1 over array calibration's events (48 kHz x 0.1
+    # s, 4,800 samples, at nfft 16,384, no band): the tetrahedron's 8 and
+    # the 6-mic array's 12.
+    for tag, (b, m) in {"calibration": (8, 4),
+                        "calibration6": (12, 6)}.items():
+        draw("gcc_all_pairs", tag)
+        pi, pj = pairs(m)
+        length, nfft = 4800, 16384
+        sig = randn(b, m, length).contiguous()
+        mask = cf.band_mask(nfft, None, 48000.0, device=dev)
+        nbytes = 4 * (b * (m * length + len(pi) * nfft) + nfft // 2 + 1)
+        compare(f"gcc_all_pairs[{tag}] B={b} M={m} P={len(pi)} nfft={nfft}",
+                lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
+                lambda: cf.gcc_all_pairs_plain(sig, pi, pj, nfft, mask),
+                tol=1e-6, reps=20,
+                least=bound(nbytes, gcc_ops(b, m, len(pi), nfft)))
+        n1 = cf.gcc_schedule(nfft, m)
+        log_device(f"gcc_all_pairs[{tag}] (schedule n1={n1})",
+                   lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
+                   kernels={1: 1, 0: None}.get(n1, 3))
 
     # K9: whitened correlation of two K4a spectra, no band
     # (phat_correlation).  Main: the single pair at nfft 65,536; no_gate's
@@ -3223,6 +3273,508 @@ def serving_phase(cf, torch, launches):
     log(f"phase 11: {time.perf_counter() - start:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: beamformed extraction, array calibration and the mesh
+# ---------------------------------------------------------------------------
+
+EXTRACTION_GOLDEN = REPO / "tests" / "data" / "torch_extraction_golden.json"
+EXTRACTION_BASES = REPO / "tests" / "data" / "torch_extraction_bases.npz"
+ALL_KERNELS = tuple(KERNELS)
+SIR_TOL_DB = 0.5
+GAIN_TOL = 0.02
+CAL_POS_TOL = 1e-4
+#: How much farther from the float64 golden than the JAX package's own
+#: float32 self-calibration the card's may land (m): a seventh of that
+#: run's 3.3-3.6 cm offset along the anchor's rigid mode.
+SELF_CAL_ROOM = 5e-3
+MESH_SEED = 41
+MESH_JOIN_S = 120.0
+MESH_REPEATS = 5
+
+
+def _free_field(torch, tool, base, source, mics, fs, c, duration):
+    """The golden's free-field render of a float32 base on the card (K3)."""
+    import numpy as np
+    from pyaudiolocalization_tpu_torch.models import simulator
+    ff = tool.FREE_FIELD
+    paths, _, _ = simulator._scene_geometry(
+        source, mics, c, 500.0, None, None, ff["absorption"],
+        ff["freq_table"], 0, ff["threshold"], torch.float32, "cuda")
+    budget = simulator.static_delay_budget(np.asarray(source), mics,
+                                           np.zeros((0, 4)), 0, fs)
+    out = int(duration * fs)
+    total = out + int(np.ceil(budget * fs))
+    return simulator.render_scene(
+        torch.as_tensor(base, dtype=torch.float32, device="cuda"),
+        paths.delays, paths.gains, fs, total, out, pad_mode="pow2")
+
+
+def _var(torch, x):
+    return float(torch.var(x, correction=0))
+
+
+def extraction_sirs(torch, tool, s_only, i_only, ps):
+    """tools/eval_sweep.py's extraction protocol for one scene on the card
+    (the golden tool's ``_sirs``): delay-and-sum SIR, and MVDR / LCMV SIR
+    and target gain with weights adapted on the mix, applied to each
+    component."""
+    from pyaudiolocalization_tpu_torch.models import beamformer as bf
+    fs, c, frame, hop = tool.X_FS, tool.X_C, tool.FRAME, tool.HOP
+    n = s_only.shape[-1]
+    s_al = bf.align_to_position(s_only, tool.CUBE, ps, fs, c, device="cuda")
+    i_al = bf.align_to_position(i_only, tool.CUBE, ps, fs, c, device="cuda")
+    ds = bf.extract_source(s_only, tool.CUBE, ps, fs, c, device="cuda")
+    di = bf.extract_source(i_only, tool.CUBE, ps, fs, c, device="cuda")
+    row = {"das_ratio": _var(torch, ds) / _var(torch, di)}
+    tau0 = torch.zeros(len(tool.CUBE), device="cuda")
+    for taps, loading in tool.TAPS_LOADING.items():
+        wr, wi = bf.mvdr_weights(bf.stack_taps(
+            bf.stft_analysis(s_al + i_al, frame, hop), taps, True), tau0, fs,
+            frame, loading, taps)
+
+        def apply(al):
+            y = bf.apply_weights(wr, wi, bf.stack_taps(
+                bf.stft_analysis(al, frame, hop), taps, False))
+            return bf.wola_synthesis(y, frame, hop, n)
+
+        so, io = apply(s_al), apply(i_al)
+        row[f"taps{taps}_ratio"] = _var(torch, so) / _var(torch, io)
+        row[f"taps{taps}_gain"] = _var(torch, so) / _var(torch, ds)
+    return row
+
+
+def extraction_step(cf, torch, tool, golden, bases, launches):
+    """EVALUATION.md's extraction protocol at full size: 3 scenes of the
+    8-mic cube at 16 kHz, white-noise and 1 kHz sine interferers at 0.25 s
+    and 1.0 s, taps 1 and 3; renders on K3, extraction on no kernel.  Each
+    case's mean SIR within 0.5 dB and target gain within 0.02 of the
+    float64 golden; the sine rows' MVDR more than 10 dB above
+    delay-and-sum; warm ms a call."""
+    import numpy as np
+    from pyaudiolocalization_tpu_torch.models import beamformer as bf
+    from pyaudiolocalization_tpu_torch.ops import signal as sig_ops
+    scenes = tool.extraction_scenes()
+
+    def renders():
+        out = {}
+        for duration in tool.X_DURATIONS:
+            for kind, freq in tool.INTERFERERS:
+                for i, (ps, pi) in enumerate(scenes):
+                    s_only = _free_field(
+                        torch, tool, bases[f"target_{duration:g}s_{i}"], ps,
+                        tool.CUBE, tool.X_FS, tool.X_C, duration)
+                    ibase = (bases[f"interferer_{duration:g}s_{i}"]
+                             if kind == "noise" else sig_ops.generate_signal(
+                                 "sine", tool.X_FS, duration, freq,
+                                 dtype=torch.float32, device="cuda"))
+                    i_only = _free_field(torch, tool, ibase, pi, tool.CUBE,
+                                         tool.X_FS, tool.X_C, duration)
+                    i_only = i_only * math.sqrt(_var(torch, s_only)
+                                                / _var(torch, i_only))
+                    out[(kind, duration, i)] = (s_only, i_only)
+        return out
+
+    mixes, counts = run_path(cf, "extraction: the scene renders", renders,
+                             ("delay_sum",), tuple(k for k in ALL_KERNELS
+                                                   if k != "delay_sum"))
+    _add(launches, counts)
+
+    def extract():
+        return {key: extraction_sirs(torch, tool, s, i,
+                                     scenes[key[2]][0])
+                for key, (s, i) in mixes.items()}
+
+    rows, counts = run_path(cf, "extraction (delay-and-sum, MVDR, LCMV)",
+                            extract, (), ALL_KERNELS)
+    _add(launches, counts)
+    for duration in tool.X_DURATIONS:
+        for kind, _ in tool.INTERFERERS:
+            name = f"{kind}_{duration:g}s"
+            want = golden[name]
+            got_rows = [rows[(kind, duration, i)] for i in range(len(scenes))]
+            got = {"das_sir_db": 10 * np.log10(np.mean(
+                [r["das_ratio"] for r in got_rows]))}
+            for t in tool.TAPS_LOADING:
+                got[f"taps{t}_sir_db"] = 10 * np.log10(np.mean(
+                    [r[f"taps{t}_ratio"] for r in got_rows]))
+                got[f"taps{t}_gain"] = float(np.mean(
+                    [r[f"taps{t}_gain"] for r in got_rows]))
+            deltas = {k: got[k] - want[k] for k in got}
+            log(f"extraction {name}: das {got['das_sir_db']:.2f} dB, MVDR "
+                f"{got['taps1_sir_db']:.2f} dB gain {got['taps1_gain']:.3f},"
+                f" LCMV taps 3 {got['taps3_sir_db']:.2f} dB gain "
+                f"{got['taps3_gain']:.3f}; golden deltas "
+                + ", ".join(f"{k} {v:+.3f}" for k, v in deltas.items()))
+            bad = [k for k, v in deltas.items()
+                   if abs(v) > (GAIN_TOL if "gain" in k else SIR_TOL_DB)]
+            if bad or not all(map(math.isfinite, got.values())):
+                raise AssertionError(f"extraction {name}: {bad} off the "
+                                     f"golden ({deltas})")
+            if kind == "sine" and not (got["taps1_sir_db"]
+                                       > got["das_sir_db"] + 10.0):
+                raise AssertionError(f"extraction {name}: MVDR does not beat "
+                                     "delay-and-sum by 10 dB")
+    s_only, i_only = mixes[("noise", 1.0, 0)]
+    mix = s_only + i_only
+    ps = scenes[0][0]
+    for name, fn in (
+            ("extract_source", lambda: bf.extract_source(
+                mix, tool.CUBE, ps, tool.X_FS, tool.X_C, device="cuda")),
+            ("extract_source_mvdr taps 1", lambda: bf.extract_source_mvdr(
+                mix, tool.CUBE, ps, tool.X_FS, tool.X_C, device="cuda")),
+            ("extract_source_mvdr taps 3", lambda: bf.extract_source_mvdr(
+                mix, tool.CUBE, ps, tool.X_FS, tool.X_C, taps=3,
+                device="cuda"))):
+        log(f"{name} warm: {time_ms(fn, 10):.3f} ms a call on 8 mics x 1.0 "
+            f"s at 16 kHz (CUDA events); {device_note(torch, fn)} "
+            f"{card_note()}")
+
+
+def device_note(torch, fn):
+    """Device time and kernels of one warm call of ``fn`` (the profiler
+    trace), its wall time and the device's idle share, as one string."""
+    dev = _load_tool("torch_rowdft_bench").device_ms(fn, 1)
+    _, wall = _wall(torch, fn)
+    return (f"device {dev['total']:.3f} ms in {dev['kernels']:g} kernels, "
+            f"wall {wall * 1e3:.1f} ms, device idle "
+            f"{1.0 - dev['total'] / (wall * 1e3):.1%}")
+
+
+def calibration_stages(torch, tool, events, c):
+    """Warm stage breakdown of the tetrahedron's calibration at 16,384:
+    K1 over the events, the TDOA ladder, the SNR weights, the 60 refine
+    sweeps (each stage timed to a synchronize)."""
+    from pyaudiolocalization_tpu_torch.models import arraycal
+    from pyaudiolocalization_tpu_torch.models import tdoa
+    from pyaudiolocalization_tpu_torch.ops import gccphat
+    pi, pj = tool.pairs(len(tool.TETRA))
+    n = events.shape[-1]
+    corr, t_gcc = _wall(torch, lambda: gccphat.gcc_phat_all_pairs(
+        events, pi, pj, nfft=16384))
+    res, t_ladder = _wall(torch, lambda: tdoa.time_delays_from_corr(
+        corr, n, n, tool.C_FS, max_expected_delay=tool.MAX_DELAY))
+    w, t_weights = _wall(torch, lambda: tdoa.compute_weights(
+        tdoa.correlation_snr(corr)))
+    _, t_refine = _wall(torch, lambda: arraycal.refine_mic_positions(
+        -res.delays[..., 0], tool.SOURCES, tool.TETRA, pi, pj, c,
+        weights=w, device="cuda"))
+    log(f"calibration tetra_16384 stages (warm): K1 {t_gcc * 1e3:.2f} ms, "
+        f"TDOA ladder {t_ladder * 1e3:.2f}, weights {t_weights * 1e3:.2f}, "
+        f"60 refine sweeps {t_refine * 1e3:.2f} {card_note()}")
+
+
+def _cal_events(torch, tool, bases, name, true, sources, c):
+    return torch.stack([_free_field(
+        torch, tool, bases[f"{name}_event_{k}"], src, true, tool.C_FS, c,
+        tool.C_DURATION) for k, src in enumerate(sources)])
+
+
+def calibration_step(cf, torch, tool, golden, bases, launches):
+    """examples/calibrate_array_geometry.py's scene on the card: the
+    tetrahedron's 8 events at 48 kHz x 0.1 s (known sources) and the
+    6-mic array's 12 (joint self-calibration with the golden's k-means
+    seeds), each at nfft=None (the exact length: K7 whitens) and 16,384
+    (one K1 launch over the events).  TDOAs equal to the golden's where
+    its margins are clear, the tetrahedron's positions within 1e-4 m when
+    all are, its worst-mic error at most 3 mm, the self-calibrated shape
+    (worst inter-mic distance error) within 1 mm
+    of the golden's, and its absolute positions no farther from float64
+    than the JAX package's float32 run plus ``SELF_CAL_ROOM`` (they keep
+    the anchor's rigid part, which float32 leaves centimetres from
+    float64)."""
+    import numpy as np
+    from pyaudiolocalization_tpu_torch.models import arraycal
+    g = golden
+    c, fs = g["c"], tool.C_FS
+    tetra_true, six_true = tool.true_geometries()
+    (tetra_ev, six_ev), counts = run_path(
+        cf, "calibration: the event renders", lambda: (
+            _cal_events(torch, tool, bases, "tetra", tetra_true,
+                        tool.SOURCES, c),
+            _cal_events(torch, tool, bases, "six", six_true, tool.SOURCES12,
+                        c)),
+        ("delay_sum",), tuple(k for k in ALL_KERNELS if k != "delay_sum"))
+    _add(launches, counts)
+    calibration_stages(torch, tool, tetra_ev, c)
+    for name, events, survey, true in (("tetra", tetra_ev, tool.TETRA,
+                                        tetra_true),
+                                       ("six", six_ev, tool.MICS6,
+                                        six_true)):
+        for nfft in tool.C_NFFTS:
+            tag = f"{name}_{nfft or 'exact'}"
+            want = g[tag]
+            kernel = "gcc_all_pairs" if nfft else "whiten"
+
+            def calibrate():
+                if name == "tetra":
+                    return arraycal.calibrate_array_geometry(
+                        events, tool.SOURCES, survey, fs, c, nfft=nfft,
+                        max_expected_delay=tool.MAX_DELAY, device="cuda")
+                return arraycal.calibrate_array_geometry(
+                    events, None, survey, fs, c, nfft=nfft,
+                    max_expected_delay=tool.MAX_DELAY,
+                    seed_indices=want["seed_indices"], device="cuda")
+
+            res, counts = run_path(
+                cf, f"calibrate_array_geometry {tag}", calibrate, (kernel,),
+                tuple(k for k in ALL_KERNELS if k != kernel))
+            _add(launches, counts)
+            if counts[kernel] != 1:
+                raise AssertionError(f"{tag}: {counts[kernel]} {kernel} "
+                                     "launches, want 1 over the events")
+            td = res.tdoas.double().cpu().numpy()
+            margins = np.asarray(want["margins"])
+            clear = margins > CLEAR_MARGIN
+            td_err = np.abs(td - np.asarray(want["tdoas"])) * fs
+            mics = res.mic_positions.double().cpu().numpy()
+            pos_err = np.linalg.norm(mics - np.asarray(want["mic_positions"]),
+                                     axis=-1).max()
+            _, wall = _wall(torch, calibrate)
+            if nfft:
+                log(f"calibration {tag} warm: {device_note(torch, calibrate)}"
+                    f" {card_note()}")
+            msg = (f"calibration {tag}: least TDOA margin {margins.min():.3e}"
+                   f" ({int(clear.sum())}/{clear.size} clear), max TDOA "
+                   f"delta {td_err[clear].max():.4f} samples where clear, "
+                   f"positions {pos_err:.2e} m from the golden")
+            if not (np.isfinite(mics).all() and td_err[clear].max() <= 0.05):
+                raise AssertionError(msg)
+            if name == "tetra":
+                if clear.all() and pos_err > CAL_POS_TOL:
+                    raise AssertionError(msg)
+                worst = np.linalg.norm(mics - true, axis=-1).max()
+                surveyed = np.linalg.norm(np.asarray(survey) - true,
+                                          axis=-1).max()
+                log(f"{msg}; worst-mic error {worst * 1e3:.2f} mm (golden "
+                    f"{want['worst_mic_error'] * 1e3:.2f} mm, survey "
+                    f"{surveyed * 1e3:.1f} mm); warm {wall * 1e3:.1f} ms "
+                    f"{card_note()}")
+                if worst > 3e-3:
+                    raise AssertionError(f"{tag}: worst-mic error {worst}")
+            else:
+                # The absolute positions of a self-calibration keep the
+                # rigid, data-null part that only the weak anchor pins:
+                # float32 leaves it centimetres from float64, as the JAX
+                # package's own float32 run shows (float32_offset).  The
+                # shape is the result.
+                shape = np.abs(tool.pairwise(mics)
+                               - tool.pairwise(true)).max()
+                shape_gap = np.abs(tool.pairwise(mics) - tool.pairwise(
+                    want["mic_positions"])).max()
+                jax32 = np.linalg.norm(mics - np.asarray(
+                    want["float32_mic_positions"]), axis=-1).max()
+                msg += (f" (the JAX package's float32 run "
+                        f"{want['float32_offset']:.2e} m, the card "
+                        f"{jax32:.2e} m from that run), inter-mic distances "
+                        f"{shape_gap:.2e} m from the golden's")
+                log(f"{msg}; worst inter-mic distance error "
+                    f"{shape * 1e3:.2f} mm (golden "
+                    f"{want['worst_shape_error'] * 1e3:.2f} mm); warm "
+                    f"{wall * 1e3:.1f} ms {card_note()}")
+                if abs(shape - want["worst_shape_error"]) > 1e-3:
+                    raise AssertionError(f"{tag}: shape error {shape}")
+                if pos_err > want["float32_offset"] + SELF_CAL_ROOM:
+                    raise AssertionError(
+                        f"{tag}: positions {pos_err} m from float64, the "
+                        f"JAX package's float32 run {want['float32_offset']}"
+                        f" m, room {SELF_CAL_ROOM} m")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _mesh_rank(rank, port, out_dir, spec_kw, scenes):
+    """One of two gloo ranks on cuda:0: the meshed sweep (K5 over its
+    scenes), then a warm repeat timed; results, summary and launches to
+    out_dir/rank{r}.npz, or the traceback to rank{r}.err."""
+    import os
+    import traceback
+    import numpy as np
+    try:
+        import torch
+        torch.cuda.set_device(0)
+        from pyaudiolocalization_tpu_torch.ops import cuda_fft as cf
+        from pyaudiolocalization_tpu_torch.parallel import (
+            SweepSpec, monte_carlo_sweep, multihost)
+        multihost.initialize(f"localhost:{port}", 2, rank, backend="gloo")
+        mesh = multihost.global_scene_mesh(device="cuda:0")
+        spec = SweepSpec(**spec_kw)
+        cf.reset_launches()
+        out = monte_carlo_sweep(spec, MESH_SEED, scenes, mesh=mesh)
+        k5 = cf.LAUNCHES["scene_windowed"]
+        torch.cuda.synchronize()
+        mesh.barrier()
+        start = time.perf_counter()
+        monte_carlo_sweep(spec, MESH_SEED, scenes, mesh=mesh)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        res = {f"shard_{k}": v.cpu().numpy()
+               for k, v in zip(out.results._fields, out.results)}
+        res["summary"] = np.array([float(out.rmse), float(out.mean_error),
+                                   float(out.hit_rate)])
+        res["k5"] = np.array(k5)
+        res["seconds"] = np.array(seconds)
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def mesh_step(cf, torch, sweep_golden, launches):
+    """A one-rank NCCL mesh in this process: bench_full_sweep's spec on
+    512 scenes (K5) equal to ``run_sweep_checkpointed(..., 512, 512)`` to
+    the bit; then two spawned gloo ranks on the one card, 256 scenes each
+    (K5), each shard equal to its chunk of ``run_sweep_checkpointed(...,
+    512, 256)`` and both summaries equal; scenes/s beside the mesh-less
+    sweep."""
+    import multiprocessing
+    import os
+    import tempfile
+    import numpy as np
+    import torch.distributed as dist
+    from pyaudiolocalization_tpu_torch.parallel import (
+        monte_carlo_sweep, multihost, run_sweep_checkpointed)
+    from pyaudiolocalization_tpu_torch.parallel import sweep as sw
+    spec_kw = {k: tuple(v) if isinstance(v, list) else v
+               for k, v in sweep_golden["spec"].items()}
+    spec = sw.SweepSpec(**spec_kw)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    fields = sw.SceneResult._fields
+    windowed = ("scene_windowed",)
+    split = ("delay_sum", "gcc_windowed")
+
+    def equal(a, b, what):
+        for field, x, y in zip(fields, a, b):
+            x = x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+            if not np.array_equal(x, np.asarray(y), equal_nan=True):
+                raise AssertionError(f"{what}: {field} differs")
+
+    multihost.initialize(f"localhost:{_free_port()}", 1, 0, backend="nccl")
+    try:
+        mesh = multihost.global_scene_mesh()
+        (out, mesh_s), counts = run_path(
+            cf, "the one-rank NCCL mesh sweep", lambda: _wall(
+                torch, lambda: monte_carlo_sweep(spec, MESH_SEED,
+                                                 SWEEP_SCENES, mesh=mesh)),
+            windowed, split)
+        _add(launches, counts)
+        ref, counts = run_path(
+            cf, "run_sweep_checkpointed (one chunk)",
+            lambda: run_sweep_checkpointed(
+                spec, MESH_SEED, SWEEP_SCENES, SWEEP_SCENES,
+                os.path.join(tmp, "one.npz"), device="cuda"),
+            windowed, split)
+        _add(launches, counts)
+        equal(out.results, ref.results, "one-rank NCCL mesh vs one chunk")
+
+        def meshed():
+            return monte_carlo_sweep(spec, MESH_SEED, SWEEP_SCENES,
+                                     mesh=mesh)
+
+        def plain():
+            return monte_carlo_sweep(spec, MESH_SEED, SWEEP_SCENES,
+                                     device="cuda")
+
+        # Warm repeats of each, alternated within the process group's life,
+        # then one profiled call of each: the meshed sweep adds one
+        # all-reduce of 3 floats.
+        mesh_s, plain_s = [], []
+        for _ in range(MESH_REPEATS):
+            mesh_s.append(_wall(torch, meshed)[1])
+            plain_s.append(_wall(torch, plain)[1])
+        mesh_dev, plain_dev = device_note(torch, meshed), device_note(
+            torch, plain)
+    finally:
+        dist.destroy_process_group()
+
+    def rates(samples):
+        return ", ".join(f"{SWEEP_SCENES / t:.1f}" for t in samples)
+
+    log(f"one-rank NCCL mesh: {SWEEP_SCENES} scenes equal to "
+        f"run_sweep_checkpointed's one chunk to the bit, summary rmse "
+        f"{float(out.rmse):.4f} m hit rate {float(out.hit_rate):.4f}; warm "
+        f"scenes/s over {MESH_REPEATS} alternated repeats: meshed "
+        f"[{rates(mesh_s)}] (median "
+        f"{SWEEP_SCENES / float(np.median(mesh_s)):.1f}), without a mesh "
+        f"[{rates(plain_s)}] (median "
+        f"{SWEEP_SCENES / float(np.median(plain_s)):.1f}); profiled: meshed "
+        f"{mesh_dev}; without a mesh {plain_dev} {card_note()}")
+
+    ctx = multiprocessing.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=_mesh_rank,
+                         args=(r, port, tmp, spec_kw, SWEEP_SCENES))
+             for r in range(2)]
+    start = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(MESH_JOIN_S)
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    errors = [open(os.path.join(tmp, f)).read()
+              for f in sorted(os.listdir(tmp)) if f.endswith(".err")]
+    if alive or errors or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"two-rank mesh: {len(alive)} ranks still "
+                             f"running after {MESH_JOIN_S} s, errors "
+                             f"{errors}")
+    wall = time.perf_counter() - start
+    ranks = []
+    for r in range(2):
+        with np.load(os.path.join(tmp, f"rank{r}.npz")) as z:
+            ranks.append({k: z[k] for k in z.files})
+    half = SWEEP_SCENES // 2
+    chunks, counts = run_path(
+        cf, "run_sweep_checkpointed (two chunks)",
+        lambda: run_sweep_checkpointed(
+            spec, MESH_SEED, SWEEP_SCENES, half,
+            os.path.join(tmp, "two.npz"), device="cuda"),
+        windowed, split)
+    _add(launches, counts)
+    for r, ranked in enumerate(ranks):
+        if int(ranked["k5"]) < 1:
+            raise AssertionError(f"rank {r} launched no K5")
+        equal([ranked[f"shard_{k}"] for k in fields],
+              [getattr(chunks.results, k)[r * half:(r + 1) * half]
+               for k in fields], f"rank {r}'s shard vs chunk {r}")
+    if not np.array_equal(ranks[0]["summary"], ranks[1]["summary"]):
+        raise AssertionError(f"rank summaries differ: {ranks[0]['summary']}"
+                             f" vs {ranks[1]['summary']}")
+    slowest = max(float(r["seconds"]) for r in ranks)
+    log(f"two gloo ranks on one card: each shard ({half} scenes, K5 "
+        f"launches {[int(r['k5']) for r in ranks]}) equal to its chunk to "
+        f"the bit, summaries equal (rmse {ranks[0]['summary'][0]:.4f} m); "
+        f"warm {SWEEP_SCENES / slowest:.1f} scenes/s for the two ranks "
+        f"sharing the card (the slower rank's {slowest:.3f} s), "
+        f"{wall:.1f} s wall with the processes' start; only one card here,"
+        f" so no multi-card rate is measured {card_note()}")
+
+
+def extraction_calibration_mesh_phase(cf, torch, sweep_golden, launches):
+    """Phase 12: beamformed extraction, array calibration and the mesh
+    (module docstring, 12)."""
+    import numpy as np
+    start = time.perf_counter()
+    tool = _load_tool("torch_extraction_golden")
+    golden = json.loads(EXTRACTION_GOLDEN.read_text())
+    with np.load(EXTRACTION_BASES) as npz:
+        bases = {k: npz[k] for k in npz.files}
+    extraction_step(cf, torch, tool, golden["extraction"], bases, launches)
+    calibration_step(cf, torch, tool, golden["calibration"], bases,
+                     launches)
+    mesh_step(cf, torch, sweep_golden, launches)
+    log(f"phase 12: {time.perf_counter() - start:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3266,8 +3818,8 @@ def main() -> int:
     # Phase 3: kernels against their plain versions.
     results = kernel_phase(cf, torch)
 
-    # Phases 4, 4b, 5, 6, 7, 8, 9, 10 and 11: the main paths, each with
-    # its own launch counts.
+    # Phases 4, 4b, 5, 6, 7, 8, 9, 10, 11 and 12: the main paths, each
+    # with its own launch counts.
     launches = {name: 0 for name in KERNELS}
     main_path_phase(cf, torch, slice_golden, sweep_golden, launches)
     options_phase(cf, torch, slice_golden, options_golden, launches)
@@ -3278,6 +3830,7 @@ def main() -> int:
     narrowband_phase(cf, torch, nb_golden, sweep_golden, launches)
     recorded_phase(cf, torch, recorded_golden, sweep_golden, launches)
     serving_phase(cf, torch, launches)
+    extraction_calibration_mesh_phase(cf, torch, sweep_golden, launches)
     log(f"launches over the main paths: {launches}")
     missing = [k for k in KERNELS if launches.get(k, 0) == 0]
     if missing:

@@ -2,7 +2,7 @@
 pyaudiolocalization_tpu for NVIDIA Hopper.
 
 The package mirrors the JAX package's ``ops/ models/ utils/`` layout and
-function names; it imports torch and numpy and never jax.  Ported so far:
+function names; it imports torch and numpy and never jax.  Ported:
 the reference's public API (``localize_sound_source``,
 ``simulate_signals_with_multipath``, ``run_calibration``) in parity mode
 (the default demo: the reference lag axis, the pre-sync, calibration) and
@@ -19,8 +19,12 @@ False``: utils/audio_io.py, ops/resample.py), the reference-shaped
 Welch-averaged GCC (``ops.gccphat.gcc_phat_streaming``), the online
 ``models.online.StreamingLocalizer`` and ``OnlineTracker``, moving-source
 tracking (``models.tracking.localize_trajectory``, ``track_multiple``) and
-the moving render (``models.simulator.simulate_moving_source``).  The
-sweep's multi-card ``mesh=`` raises ``NotImplementedError``.
+the moving render (``models.simulator.simulate_moving_source``);
+beamformed extraction (``models.beamformer.extract_source``,
+``extract_source_mvdr``), array-geometry calibration
+(``models.arraycal``) and the multi-card scene mesh
+(``parallel.make_mesh``, ``parallel.multihost``, ``mesh=``): all that the
+JAX package does.
 """
 
 from .api import (  # noqa: F401

@@ -127,8 +127,7 @@ def simulate_signals_with_multipath(source_pos, mic_positions, fs, c,
 def _check_supported(loc: LocalizationConfig) -> None:
     """The JAX package's ValueErrors for the localization settings
     (api.py:549-565 there).  Every mode of ``localize_sound_source`` runs
-    in the port; of the sweep, only ``mesh=`` raises
-    (parallel/sweep.MESH_NOT_PORTED)."""
+    in the port."""
     if loc.solver not in _SOLVERS:
         raise ValueError(f"Unknown solver {loc.solver!r}; expected one of "
                          f"{_SOLVERS}")

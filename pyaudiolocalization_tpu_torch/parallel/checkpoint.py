@@ -10,6 +10,17 @@ an uninterrupted one to the bit on the same device.  The JAX package
 derives its chunk keys by ``jax.random.fold_in``, whose streams torch
 cannot reproduce: the two packages' sweeps of one seed agree in
 distribution, not scene by scene.
+
+With a ``mesh`` (parallel/sweep.make_mesh) of W ranks every chunk is a
+meshed sweep: rank r of chunk c runs chunk_scenes / W scenes from
+``chunk_seed(seed, c * W + r)``, which are the scenes of chunk c * W + r
+of the unmeshed sweep at chunk_scenes / W.  The shards are all-gathered to
+every rank in rank order, rank 0 writes the checkpoint, and a barrier
+follows.  The file is the unmeshed sweep's at chunk_scenes / W, so a run
+resumes from it with or without a mesh, at any W that divides its chunks.
+On resume rank 0 alone reads it and broadcasts the state, so the other
+ranks need not share its filesystem.  Without a mesh the sweep runs as a
+one-rank mesh on ``device``.
 """
 
 from __future__ import annotations
@@ -22,19 +33,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..utils.device import resolve_device
-from .sweep import (MESH_NOT_PORTED, SceneResult, SweepSpec,
-                    SweepSummary, monte_carlo_sweep)
+from .sweep import (SceneResult, SweepSpec, SweepSummary, _check_mesh,
+                    _meshed_sweep, chunk_seed, make_mesh)
 
 _FIELDS = ("estimate", "source", "error", "cost", "tdoas", "covariance")
-
-
-def chunk_seed(seed: int, chunk_index: int) -> int:
-    """The generator seed of chunk ``chunk_index`` of a sweep seeded
-    ``seed``: 63 bits of ``numpy.random.SeedSequence([seed, index])``."""
-    state = np.random.SeedSequence([seed, chunk_index]).generate_state(
-        2, np.uint32)
-    return (int(state[0]) << 31) ^ int(state[1])
+__all__ = ["chunk_seed", "save_checkpoint", "load_checkpoint",
+           "run_sweep_checkpointed"]
 
 
 def save_checkpoint(path: str, spec: SweepSpec, seed: int,
@@ -89,39 +93,57 @@ def run_sweep_checkpointed(spec: SweepSpec, seed: int, num_scenes: int,
     with the same arguments resumes from the last completed chunk and gives
     results equal to the bit to an uninterrupted run.  A checkpoint of
     another spec, seed or chunking is not continued: the sweep restarts.
-    The summary holds numpy arrays."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+    With a ``mesh`` every chunk is a meshed sweep over its ranks, each on
+    the mesh's device (``device`` is not used), and every rank returns all
+    the results (module docstring).  The summary holds numpy arrays."""
     if num_scenes % chunk_scenes != 0:
         raise ValueError("num_scenes must be a multiple of chunk_scenes")
-    dev = resolve_device(device)
+    if mesh is None:
+        mesh = make_mesh(device=device)
+    else:
+        _check_mesh(mesh, seed)
+    ranks = mesh.size
+    if chunk_scenes % ranks != 0:
+        raise ValueError(f"chunk_scenes={chunk_scenes} must be divisible "
+                         f"by the mesh size {ranks}")
     num_chunks = num_scenes // chunk_scenes
+    # The checkpoint counts the unmeshed sweep's chunks, chunk_scenes / W
+    # scenes each.
+    unit = chunk_scenes // ranks
 
+    # Rank 0 alone reads the checkpoint and decides where to resume: the
+    # other ranks may see no file, or an older one, where the ranks share
+    # no filesystem.
+    state = None
+    if resume and mesh.rank == 0:
+        state = load_checkpoint(checkpoint_path)
+        # A checkpoint of another spec, seed or chunking must not be
+        # continued: the mixed results would be silently wrong.
+        if state is not None and not (
+                state[1] == unit and state[0] % ranks == 0
+                and state[2] == seed
+                and state[3] == repr(dataclasses.asdict(spec))):
+            state = None
+    state = mesh.broadcast(state)
     start = 0
     accumulated: Optional[SceneResult] = None
-    if resume:
-        state = load_checkpoint(checkpoint_path)
-        if state is not None:
-            done, saved_chunk, saved_seed, saved_spec, results = state
-            # A checkpoint of another spec, seed or chunking must not be
-            # continued: the mixed results would be silently wrong.
-            if (saved_chunk == chunk_scenes and saved_seed == seed
-                    and saved_spec == repr(dataclasses.asdict(spec))):
-                start = done
-                accumulated = results
-                if log_fn:
-                    log_fn(f"resuming at chunk {start}/{num_chunks}")
+    if state is not None:
+        start, accumulated = state[0] // ranks, state[4]
+        if log_fn:
+            log_fn(f"resuming at chunk {start}/{num_chunks}")
 
     for idx in range(start, num_chunks):
-        gen = torch.Generator(device=dev).manual_seed(chunk_seed(seed, idx))
-        summary = monte_carlo_sweep(spec, gen, chunk_scenes,
-                                    hit_threshold=hit_threshold, dtype=dtype,
-                                    device=dev)
-        chunk_np = SceneResult(*(x.cpu().numpy() for x in summary.results))
+        shard = SceneResult(*(mesh.all_gather(x) for x in _meshed_sweep(
+            spec, seed, chunk_scenes, mesh, hit_threshold, dtype,
+            first_chunk=idx * ranks).results))
+        chunk_np = SceneResult(*(x.cpu().numpy() for x in shard))
         accumulated = chunk_np if accumulated is None else _concat(
             accumulated, chunk_np)
-        save_checkpoint(checkpoint_path, spec, seed, idx + 1, chunk_scenes,
-                        accumulated)
+        if mesh.rank == 0:
+            save_checkpoint(checkpoint_path, spec, seed, (idx + 1) * ranks,
+                            unit, accumulated)
+        # The checkpoint is on disk before any rank goes on.
+        mesh.barrier()
         if log_fn:
             log_fn(f"chunk {idx + 1}/{num_chunks} done "
                    f"({(idx + 1) * chunk_scenes} scenes)")

@@ -1,5 +1,6 @@
 """Monte-Carlo scene sweeps: batches of simulate -> localize pipelines on
-one card (counterpart of the JAX package's parallel/sweep.py).
+one card or a mesh of cards (counterpart of the JAX package's
+parallel/sweep.py).
 
 The JAX package ``vmap``s one scene's pipeline over keys and shards the
 scene axis over a TPU mesh.  Here the scene axis is a leading tensor
@@ -48,8 +49,18 @@ cannot be reproduced; sweeps agree with it in distribution.
 
 Entry points run on ``cuda`` unless given ``device`` (``device="cpu"``
 runs the plain PyTorch twins).  The chunked, restartable form of the
-sweep is parallel/checkpoint.py; the multi-card mesh (``mesh=``, which
-raises ``NotImplementedError``) belongs to the multi-GPU slice.
+sweep is parallel/checkpoint.py.
+
+The mesh (``make_mesh``, parallel/multihost.py) is one process a card over
+``torch.distributed``, the counterpart of the JAX package's one process a
+host with the scene axis sharded by ``shard_map``.  A meshed sweep of
+``num_scenes`` over W ranks runs num_scenes / W scenes on each rank, rank
+r drawing from a generator seeded ``chunk_seed(seed, r)``: the rule of the
+checkpointed sweep's chunks, so that the meshed sweep equals
+``run_sweep_checkpointed(spec, seed, num_scenes, num_scenes // W)`` to
+the bit on one kind of device, rank r's results being chunk r.  The
+summary is all-reduced (the JAX package's ``pmean``) and replicated;
+``results`` holds this rank's shard.
 """
 
 from __future__ import annotations
@@ -57,10 +68,12 @@ from __future__ import annotations
 import dataclasses
 import functools
 import itertools
+import os
 from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models import acoustics
 from ..models import beamformer as beam_ops
@@ -80,10 +93,7 @@ from ..ops.delay import fade_window
 from ..ops.fftutils import fft_length, next_pow2
 from ..utils.device import resolve_device
 
-# The one mode of the port that still raises: the multi-GPU slice, the
-# last, brings it.
-MESH_NOT_PORTED = ("the multi-card mesh sweep is not ported yet; the "
-                   "multi-GPU slice of the PyTorch port brings it")
+SCENE_AXIS = "scenes"
 _NARROWBAND = ("beam", "music", "capon")
 #: Device bytes the narrowband search may hold at once: its (scenes, 24^3
 #: points, mics, bins) planes are taken in scene chunks that fit.
@@ -723,21 +733,153 @@ def _run_scenes(spec: SweepSpec, generator, num_scenes: int, dtype,
                        cost[rows, order], td, nan_cov)
 
 
-def _summary(results: SceneResult, hit_threshold: float) -> SweepSummary:
+# ---------------------------------------------------------------------------
+# The scene mesh: one process a card over torch.distributed
+# ---------------------------------------------------------------------------
+
+def chunk_seed(seed: int, chunk_index: int) -> int:
+    """The generator seed of chunk ``chunk_index`` of a sweep seeded
+    ``seed`` (a checkpointed sweep's chunk, or a meshed sweep's rank):
+    63 bits of ``numpy.random.SeedSequence([seed, index])``."""
+    state = np.random.SeedSequence([seed, chunk_index]).generate_state(
+        2, np.uint32)
+    return (int(state[0]) << 31) ^ int(state[1])
+
+
+@dataclasses.dataclass(frozen=True)
+class SceneMesh:
+    """A 1-D scene mesh: ``size`` ranks of ``group`` (None: this process
+    alone, no collectives), this process being ``rank`` and running its
+    scenes on ``device``.  Its one axis is named ``SCENE_AXIS``, as the
+    JAX package's mesh axis."""
+    group: object
+    size: int
+    rank: int
+    device: torch.device
+    axis_name: ClassVar[str] = SCENE_AXIS
+
+    def _collective_device(self) -> torch.device:
+        """Where the collectives' tensors live: the card for NCCL, the CPU
+        for gloo."""
+        if dist.get_backend(self.group) == "nccl":
+            return self.device
+        return torch.device("cpu")
+
+    def all_reduce_mean(self, values: torch.Tensor) -> torch.Tensor:
+        """The mean over the ranks of ``values`` (the JAX package's
+        ``pmean``), replicated on every rank."""
+        if self.group is None:
+            return values
+        buf = values.to(self._collective_device()).clone()
+        dist.all_reduce(buf, group=self.group)
+        return (buf / self.size).to(values.device)
+
+    def all_gather(self, shard: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``shard`` concatenated in rank order along the
+        leading axis, on every rank."""
+        if self.group is None:
+            return shard
+        buf = shard.to(self._collective_device()).contiguous()
+        out = [torch.empty_like(buf) for _ in range(self.size)]
+        dist.all_gather(out, buf, group=self.group)
+        return torch.cat(out, 0).to(shard.device)
+
+    def broadcast(self, obj):
+        """Rank 0's picklable ``obj``, on every rank."""
+        if self.group is None:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=0, group=self.group,
+                                   device=self._collective_device())
+        return box[0]
+
+    def barrier(self) -> None:
+        if self.group is None:
+            return
+        if dist.get_backend(self.group) == "nccl":
+            dist.barrier(group=self.group, device_ids=[self.device.index])
+        else:
+            dist.barrier(group=self.group)
+
+
+def make_mesh(num_devices: Optional[int] = None, device=None) -> SceneMesh:
+    """The scene mesh over the initialized process group
+    (``torch.distributed``; parallel/multihost.initialize), one rank a
+    card: ``num_devices`` must be None or the group's size.  This rank
+    runs on ``device``, default ``cuda:$LOCAL_RANK`` (or the rank modulo
+    the cards).  Without a process group: a one-rank mesh on ``device``
+    (``utils.device.resolve_device``: the card unless named)."""
+    if not (dist.is_available() and dist.is_initialized()):
+        if num_devices not in (None, 1):
+            raise ValueError(f"make_mesh({num_devices}): no process group "
+                             "is initialized, so the mesh has one rank "
+                             "(parallel/multihost.initialize)")
+        return SceneMesh(None, 1, 0, resolve_device(device))
+    size, rank = dist.get_world_size(), dist.get_rank()
+    if num_devices is not None and num_devices != size:
+        raise ValueError(f"make_mesh({num_devices}): the process group has "
+                         f"{size} ranks; a mesh spans all of them")
+    if device is None:
+        local = os.environ.get("LOCAL_RANK")
+        count = max(torch.cuda.device_count(), 1)
+        device = f"cuda:{int(local) if local is not None else rank % count}"
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return SceneMesh(dist.group.WORLD, size, rank, dev)
+
+
+def _summary(results: SceneResult, hit_threshold: float,
+             mesh: Optional[SceneMesh] = None) -> SweepSummary:
     err = results.error
-    hits = torch.mean((err < hit_threshold).to(err.dtype))
-    return SweepSummary(torch.sqrt(torch.mean(err * err)), torch.mean(err),
-                        hits, results)
+    stats = torch.stack([torch.mean(err * err), torch.mean(err),
+                         torch.mean((err < hit_threshold).to(err.dtype))])
+    if mesh is not None:
+        stats = mesh.all_reduce_mean(stats)
+    return SweepSummary(torch.sqrt(stats[0]), stats[1], stats[2], results)
+
+
+def _meshed_sweep(spec: SweepSpec, seed: int, num_scenes: int,
+                  mesh: SceneMesh, hit_threshold: float, dtype,
+                  first_chunk: int = 0) -> SweepSummary:
+    """This rank's shard of a meshed sweep: num_scenes / size scenes drawn
+    from ``chunk_seed(seed, first_chunk + rank)``."""
+    if num_scenes % mesh.size != 0:
+        raise ValueError(f"num_scenes={num_scenes} must be divisible by the "
+                         f"mesh size {mesh.size}")
+    gen = torch.Generator(device=mesh.device).manual_seed(
+        chunk_seed(seed, first_chunk + mesh.rank))
+    results = run_scene(spec, gen, num_scenes // mesh.size, dtype,
+                        mesh.device)
+    return _summary(results, hit_threshold, mesh)
+
+
+def _check_mesh(mesh, seed_or_generator) -> None:
+    if not isinstance(mesh, SceneMesh):
+        raise TypeError(f"mesh must be a SceneMesh (parallel.make_mesh), "
+                        f"got {type(mesh).__name__}")
+    if isinstance(seed_or_generator, torch.Generator):
+        raise TypeError("a meshed sweep takes an int seed: a generator's "
+                        "state cannot be split across processes (rank r "
+                        "draws from chunk_seed(seed, r))")
 
 
 def monte_carlo_sweep(spec: SweepSpec,
                       seed_or_generator: Union[int, torch.Generator],
-                      num_scenes: int, mesh=None, hit_threshold: float = 0.1,
+                      num_scenes: int, mesh: Optional[SceneMesh] = None,
+                      hit_threshold: float = 0.1,
                       dtype: torch.dtype = torch.float32,
                       device=None) -> SweepSummary:
-    """Run ``num_scenes`` randomized scenes on one device and summarize
-    them (RMSE, mean error, hit rate under ``hit_threshold`` meters)."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
-    return _summary(run_scene(spec, seed_or_generator, num_scenes, dtype,
-                              device), hit_threshold)
+    """Run ``num_scenes`` randomized scenes and summarize them (RMSE, mean
+    error, hit rate under ``hit_threshold`` meters).  With a ``mesh``
+    (``make_mesh``) the scenes are split over its ranks, each on the
+    mesh's device (``device`` is not used): rank r runs num_scenes / W of
+    them from ``chunk_seed(seed, r)`` (an int seed; ``num_scenes`` must be
+    divisible by W), the summary is all-reduced and replicated, and
+    ``results`` holds this rank's shard."""
+    if mesh is None:
+        return _summary(run_scene(spec, seed_or_generator, num_scenes, dtype,
+                                  device), hit_threshold)
+    _check_mesh(mesh, seed_or_generator)
+    return _meshed_sweep(spec, int(seed_or_generator), num_scenes, mesh,
+                         hit_threshold, dtype)

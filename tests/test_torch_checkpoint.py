@@ -108,7 +108,7 @@ def test_checkpoint_validation(tmp_path):
     with pytest.raises(ValueError, match="multiple"):
         run_sweep_checkpointed(SPEC, seed=0, num_scenes=5, chunk_scenes=4,
                                checkpoint_path=str(tmp_path / "x.npz"), **CPU)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="SceneMesh"):
         run_sweep_checkpointed(SPEC, seed=0, num_scenes=4, chunk_scenes=4,
                                checkpoint_path=str(tmp_path / "x.npz"),
                                mesh=object(), **CPU)

@@ -1366,3 +1366,86 @@ def test_serving_paths_on_the_card_match_the_cpu(cuda):
     pos, _ = loc.run(cpu.numpy())
     assert cf.LAUNCHES["whiten"] == 1 + cpu.shape[1] // 1024
     assert np.isfinite(pos).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m", [(8, 4), (12, 6)])
+def test_gcc_all_pairs_at_the_calibration_shapes(cuda, b, m):
+    """K1 over array calibration's events: 48 kHz x 0.1 s (4,800 samples)
+    at nfft 16,384, no band, 8 events of the tetrahedron and 12 of the
+    6-mic array."""
+    sig = torch.randn((b, m, 4800), generator=_gen(cuda, 15), device=cuda)
+    pi, pj = _pairs(m)
+    mask = cf.band_mask(16384, None, 48000.0, device=cuda)
+    got = cf.gcc_all_pairs(sig, pi, pj, 16384, mask)
+    want = cf.gcc_all_pairs_plain(sig, pi, pj, 16384, mask)
+    torch.cuda.synchronize()
+    assert got.shape == (b, len(pi), 16384)
+    assert float((got - want).abs().max()) < 1e-6
+
+
+def _events(mics, sources, fs, n, seed):
+    """Free-field noise events (K, M, n) float32: each mic hears the base
+    delayed by its distance / 343 m/s (phase ramp) and scaled by 1/d."""
+    rng = np.random.default_rng(seed)
+    nfft = 4 * n
+    freqs = np.fft.rfftfreq(nfft, 1.0 / fs)
+    out = []
+    for src in sources:
+        spec = np.fft.rfft(rng.standard_normal(n), nfft)
+        d = np.linalg.norm(mics - src, axis=-1)
+        sig = np.fft.irfft(spec * np.exp(-2j * np.pi * freqs
+                                         * (d[:, None] / 343.0)), nfft)
+        out.append(sig[:, :n] / d[:, None])
+    return np.asarray(out, np.float32)
+
+
+@pytest.mark.cuda
+def test_extraction_calibration_and_mesh_on_the_card_match_the_cpu(
+        cuda, tmp_path):
+    """Extraction (no kernel), calibration at nfft 16,384 (one K1 launch
+    over the events) and a one-rank mesh sweep on the card, against the
+    same calls on the CPU (float32)."""
+    from pyaudiolocalization_tpu_torch.models import arraycal, beamformer
+    from pyaudiolocalization_tpu_torch.parallel import (
+        make_mesh, run_sweep_checkpointed)
+    cube = np.array([[x, y, z] for x in (0.0, 1.0) for y in (0.0, 1.0)
+                     for z in (0.0, 1.0)])
+    sigs = _events(cube, [np.array([0.3, 0.6, 0.4])], 16000.0, 4000, 1)[0]
+    cf.reset_launches()
+    for fn, kw in ((beamformer.extract_source, {}),
+                   (beamformer.extract_source_mvdr, dict(taps=3))):
+        got = fn(sigs, cube, [0.3, 0.6, 0.4], 16000.0, 343.0, **kw)
+        want = fn(sigs, cube, [0.3, 0.6, 0.4], 16000.0, 343.0, device="cpu",
+                  **kw)
+        assert got.is_cuda and got.shape == want.shape
+        assert float((got.cpu() - want).abs().max()) < 1e-3 * float(
+            want.abs().max())
+    assert sum(cf.LAUNCHES.values()) == 0
+    tetra = np.array([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.5, 1.0, 0.0],
+                      [0.5, 0.5, 1.0]])
+    sources = np.array([[0.2, 0.3, 0.6], [0.9, 0.8, 0.4], [0.1, 0.9, 0.9],
+                        [0.8, 0.1, 0.8], [0.5, 0.6, 0.2], [0.3, 0.2, 1.1],
+                        [1.1, 0.5, 0.7], [0.6, 1.0, 1.0]])
+    true = tetra + np.random.default_rng(11).uniform(-0.03, 0.03, (4, 3))
+    events = _events(true, sources, 48000.0, 4800, 2)
+    got = arraycal.calibrate_array_geometry(events, sources, tetra, 48000.0,
+                                            343.0, nfft=16384,
+                                            max_expected_delay=0.02)
+    assert cf.LAUNCHES["gcc_all_pairs"] == 1
+    want = arraycal.calibrate_array_geometry(events, sources, tetra, 48000.0,
+                                             343.0, nfft=16384,
+                                             max_expected_delay=0.02,
+                                             device="cpu")
+    np.testing.assert_allclose(got.tdoas.cpu().numpy(), want.tdoas.numpy(),
+                               atol=1e-3 / 48000.0)
+    np.testing.assert_allclose(got.mic_positions.cpu().numpy(),
+                               want.mic_positions.numpy(), atol=1e-4)
+    assert np.linalg.norm(got.mic_positions.cpu().numpy() - true,
+                          axis=-1).max() < 0.008
+    spec = SweepSpec(fs=16000.0, duration=0.1, signal_type="noise",
+                     source_box_lo=(0.2,) * 3, source_box_hi=(0.8,) * 3)
+    out = monte_carlo_sweep(spec, 3, 16, mesh=make_mesh())
+    ck = run_sweep_checkpointed(spec, 3, 16, 16, str(tmp_path / "c.npz"))
+    for a, b in zip(out.results, ck.results):
+        np.testing.assert_array_equal(a.cpu().numpy(), b)

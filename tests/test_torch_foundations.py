@@ -176,11 +176,12 @@ def test_fade_window_and_delay_and_sum_match_jax(rng):
 
 def test_port_imports_without_jax():
     """Every module of the port (the compat layer, the audio reader, the
-    resampler, the checkpointed sweep, the profiling hooks, tracking and
-    the online localizer named), the
+    resampler, the checkpointed sweep, the profiling hooks, tracking, the
+    online localizer, array calibration and the mesh named), the
     numpy scene builder that ``chip_smoke.py`` loads from
-    tools/torch_sweep_golden.py, and K10's A/B bench
-    (tools/torch_rowdft_bench.py) import with jax blocked."""
+    tools/torch_sweep_golden.py, K10's A/B bench
+    (tools/torch_rowdft_bench.py) and phase 12's scene helpers
+    (tools/torch_extraction_golden.py) import with jax blocked."""
     code = (
         "import sys, pkgutil, importlib, importlib.util\n"
         "sys.modules['jax'] = None\n"
@@ -191,7 +192,8 @@ def test_port_imports_without_jax():
         "    importlib.import_module(name)\n"
         "for name in ('compat', 'utils.audio_io', 'utils.flac', "
         "'utils.vorbis', 'ops.resample', 'parallel.checkpoint', "
-        "'utils.profiling', 'models.tracking', 'models.online'):\n"
+        "'utils.profiling', 'models.tracking', 'models.online', "
+        "'models.arraycal', 'parallel.multihost'):\n"
         "    assert pkg.__name__ + '.' + name in names, name\n"
         "spec = importlib.util.spec_from_file_location('golden', "
         "'tools/torch_sweep_golden.py')\n"
@@ -205,6 +207,12 @@ def test_port_imports_without_jax():
         "bench = importlib.util.module_from_spec(spec)\n"
         "spec.loader.exec_module(bench)\n"
         "assert len(bench.SHAPES) == 5 and callable(bench.run)\n"
+        "spec = importlib.util.spec_from_file_location('xgolden', "
+        "'tools/torch_extraction_golden.py')\n"
+        "xtool = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(xtool)\n"
+        "assert len(xtool.extraction_scenes()) == 3\n"
+        "assert xtool.true_geometries()[1].shape == (6, 3)\n"
         "assert not any(k == 'pyaudiolocalization_tpu' or "
         "k.startswith('pyaudiolocalization_tpu.') for k in sys.modules)\n"
         "assert sys.modules['jax'] is None\n"

@@ -7,8 +7,9 @@ outputs are left as allocated, so these tests read the launches only.
 They hold K4a's radix-2 passes above 2^20, the row chunks of K4a, K4b, K6
 and K9, the scene chunks of K2, K3 and K5 at the sweep's 65,535 grid
 limit, the exact-length parity path (K7 only), the api from recorded files
-(K1, K4a, K4b) and the compat layer's single pair (K4a + K9 at a power of
-two, K7 otherwise).
+(K1, K4a, K4b), the compat layer's single pair (K4a + K9 at a power of
+two, K7 otherwise), array calibration (K1 over the events at a power of
+two, K7 at the exact length) and beamformed extraction (no kernel).
 """
 
 from __future__ import annotations
@@ -474,3 +475,47 @@ def test_stream_step_whitens_a_new_tensor_through_k7(launches, kw, want):
         # (earlier hops' memory may since hold other tensors).
         assert runs[-1][0] not in (state.cross_r.data_ptr(),
                                    state.cross_i.data_ptr())
+
+
+# ---------------------------------------------------------------------------
+# Beamformed extraction and array calibration
+# ---------------------------------------------------------------------------
+
+CAL_SOURCES = np.array([[0.2, 0.3, 0.6], [0.9, 0.8, 0.4], [0.1, 0.9, 0.9],
+                        [0.8, 0.1, 0.8], [0.5, 0.6, 0.2]])
+
+
+@pytest.mark.parametrize("nfft,want", [(None, ["whiten"]),
+                                       (8192, ["gcc_all_pairs"])])
+def test_calibration_runs_k1_over_its_events(launches, nfft, want):
+    """calibrate_array_geometry at a power-of-two nfft: one K1 launch with
+    the K events as its scene axis; at the exact length 2N - 1 the unfused
+    branch, whose PHAT is one K7 launch over every event's pairs."""
+    from pyaudiolocalization_tpu_torch.models import arraycal
+    sigs = _noise(5 * 4, 4000).reshape(5, 4, 4000)
+    arraycal.calibrate_array_geometry(sigs, CAL_SOURCES, TETRA, 48000.0,
+                                      343.0, nfft=nfft,
+                                      max_expected_delay=0.02, sweeps=4,
+                                      device="cpu")
+    assert [n for n, _ in launches] == want
+    (args,) = _named(launches, want[0])
+    if nfft:
+        assert args[1:5] == (5, 4, 4000, 8192)
+    else:
+        assert args[1] == 5 * 6 * 4000   # (K, P, (2N - 1)//2 + 1) bins
+
+
+def test_extraction_launches_no_kernel(launches):
+    """Delay-and-sum, the alignment and MVDR / LCMV extraction are
+    torch.fft and torch.linalg on either device: no kernel."""
+    from pyaudiolocalization_tpu_torch.models import beamformer
+    sigs = _noise(4, 3000)
+    pos = np.array([0.3, 0.6, 0.4])
+    beamformer.extract_source(sigs, TETRA, pos, 16000.0, 343.0,
+                              device="cpu")
+    beamformer.align_to_position(sigs, TETRA, pos, 16000.0, 343.0,
+                                 device="cpu")
+    for taps in (1, 3):
+        beamformer.extract_source_mvdr(sigs, TETRA, pos, 16000.0, 343.0,
+                                       taps=taps, device="cpu")
+    assert launches == []

@@ -301,7 +301,7 @@ def test_unsupported_specs_raise(change):
 
 
 def test_sweep_refusals():
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         tsw.monte_carlo_sweep(SPEC, 0, 8, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="gcc_weighting"):
         tsw.run_scene(tsw.SweepSpec(gcc_weighting="ml"), 0, device="cpu")
