@@ -148,8 +148,10 @@ in twelve phases:
    its coarse margin is clear, the compensated mean error within 0.05 m;
    ``track_multiple`` on the crossing walkers of EVALUATION.md (12 x 128
    ms, 4-mic tetra, 1.2 m/s; K3 renders, K1), static and compensated, and
-   three walkers on an 8-mic room array, compensated: identities held,
-   compensated errors within 0.1 m a track; ``gcc_phat_streaming`` on 4 x
+   three walkers on an 8-mic room array, compensated: identities held
+   (each walker's nearest track the same on the first and last segment),
+   the rate bank's host pool recorded, compensated errors within 0.035 m a
+   track on the two walkers and 0.1 m on three; ``gcc_phat_streaming`` on 4 x
    60 s at 44.1 kHz, frame 8192, PHAT (K7) and 'ml', TDOAs within 0.05
    samples of the injected half-sample delays, with device time and peak
    memory; ``StreamingLocalizer`` by ``run()`` and ``step()`` at
@@ -184,6 +186,21 @@ in twelve phases:
    256)`` and both summaries equal; scenes/s over five alternated warm
    repeats of the meshed and the mesh-less sweep, and one profiled call of
    each (one card: no multi-card rate).
+13. the measurement tools (``evaluation_fuzz_phase``): the ten sections of
+   EVALUATION.md's accuracy tables at tools/eval_sweep.py's full counts
+   through tools/torch_eval_sweep.py (K5, K3, K1, K7), printed beside the
+   JAX package's rows of ``tests/data/torch_eval_golden.json`` under the
+   card's name and power limit, and held to them by the tool's ``hold``
+   (PERF.md section 2): hit counts within 3 pooled binomial sigma, p90
+   within 1.5x (2 mm under 2 cm) or by its quantile, the NEES coverage by
+   the binomial rule and its median within 15 %, the CRLB to 1e-9, the
+   extraction SIRs within 1.5 dB, the walkers' identities held where the
+   golden's hold and each mean error within 2x or under 0.1 m; then
+   tools/torch_path_fuzz.py (K5, K3, K2, K1, K4a, K9): every
+   configuration's TDOAs within 0.5 sample and, with 4 mics or more,
+   estimates within 1 mm of the plain twins on the same signals (a scene
+   whose TDOA ladder nearly ties is exempt, at most one in ten; one whose
+   SRP coarse map ties has its TDOAs held and its fix counted).
 
 Every path runs with the launch counts set to 0 just before it and read
 just after; each must have launched its kernels.  Any failure raises, and
@@ -2957,6 +2974,23 @@ def check_probes(name, got, want, idx, tol=RENDER_TOL):
                              f"vs the golden, limit {tol}")
 
 
+def _identities_held(pos, truth):
+    """Whether the track nearest each source on the first segment is still
+    the one nearest it on the last (pos, truth (S, K, 3))."""
+    import numpy as np
+
+    def nearest(t):
+        return [int(np.argmin(np.linalg.norm(pos[t] - truth[t, j], axis=-1)))
+                for j in range(truth.shape[1])]
+    first = nearest(0)
+    return len(set(first)) == len(first) and first == nearest(-1)
+
+
+# The crossing walkers' compensated mean error a track at the rate bank's
+# host pool (CPU float32 on the golden's bases: 0.032 / 0.014 m).
+WALKERS_MEAN_TOL = 0.035
+
+
 def _identity_errors(pos, truth):
     """Per-track errors after matching tracks to sources on the first
     segment (pos, truth (S, K, 3))."""
@@ -3100,6 +3134,18 @@ def serving_walkers(cf, torch, tool, golden, bases, launches):
             pos = mt.positions.cpu().numpy()
             truth = tool.walker_truth(g["walkers"], mt.times.cpu().numpy())
             err = _identity_errors(pos, truth)
+            if motion == "compensated":
+                pool = tracking._rate_bank_pool(
+                    lower, upper, tool.MULTI["coarse_n"], tool.FS, tool.C)
+                held = _identities_held(pos, truth)
+                log(f"track_multiple {name} compensated: rate bank pool "
+                    f"{pool} samples, identities held {held}")
+                limit = WALKERS_MEAN_TOL if name == "walkers" else 0.1
+                if not held or err.mean(0).max() > limit:
+                    raise AssertionError(
+                        f"{name} compensated (pool {pool}): identities "
+                        f"held {held}, mean errors {err.mean(0)} (limit "
+                        f"{limit} m)")
             gold = _identity_errors(np.asarray(g[motion]["positions"]),
                                     truth)
             _, wall = _wall(torch, track)
@@ -3775,6 +3821,68 @@ def extraction_calibration_mesh_phase(cf, torch, sweep_golden, launches):
     log(f"phase 12: {time.perf_counter() - start:.1f} s")
 
 
+EVAL_GOLDEN = REPO / "tests" / "data" / "torch_eval_golden.json"
+# The kernels each half of phase 13 must launch (PERF.md section 6).
+EVAL_KERNELS = ("scene_windowed", "delay_sum", "gcc_all_pairs", "whiten")
+FUZZ_KERNELS = ("scene_windowed", "delay_sum", "gcc_windowed",
+                "gcc_all_pairs", "fft_real", "whitened_corr")
+
+
+def evaluation_fuzz_phase(cf, torch, launches):
+    """Phase 13: the measurement tools (module docstring, 13)."""
+    import contextlib
+    import io
+    start = time.perf_counter()
+    ev = _load_tool("torch_eval_sweep")
+    fz = _load_tool("torch_path_fuzz")
+    golden = json.loads(EVAL_GOLDEN.read_text())
+    results = {"rows": [], "extract": [], "tracking": [], "scale": 1}
+    seen = {name: 0 for name in cf.LAUNCHES}
+    for name in ev.SECTIONS:
+        t0 = time.perf_counter()
+        part, counts = run_path(cf, f"evaluation {name}",
+                                lambda: ev.run_sections([name], 1, "cuda"),
+                                ())
+        _add(launches, counts)
+        _add(seen, counts)
+        for key in ("rows", "extract", "tracking"):
+            results[key] += part[key]
+        if "extract_scenes" in part:
+            results["extract_scenes"] = part["extract_scenes"]
+        log(f"evaluation {name}: {time.perf_counter() - t0:.1f} s "
+            f"{card_note()}")
+    missing = [k for k in EVAL_KERNELS if seen[k] == 0]
+    if missing:
+        raise AssertionError(f"evaluation: kernels not launched {missing}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ev.print_tables(results, golden, f" — {CARD[0]}")
+    for line in buf.getvalue().splitlines():
+        log(line)
+    bad = ev.hold(results, golden)
+    if bad:
+        raise AssertionError("evaluation against the golden:\n"
+                             + "\n".join(bad))
+    log(f"evaluation: {len(results['rows'])} sweep rows, "
+        f"{len(results['extract'])} extraction cases and "
+        f"{len(results['tracking'])} tracking modes hold")
+    t0 = time.perf_counter()
+    out, counts = run_path(cf, "kernel-path fuzz",
+                           lambda: fz.run_fuzz("cuda", emit=log),
+                           FUZZ_KERNELS)
+    _add(launches, counts)
+    log(f"fuzz: {len(out['records'])} configurations, {out['scenes']} "
+        f"scenes, {out['ties']} ladder ties, {out['map_ties']} coarse-map "
+        f"ties, {time.perf_counter() - t0:.1f} s {card_note()}")
+    if not out["ok"]:
+        raise AssertionError("fuzz: " + "; ".join(
+            f"config {r['config']}: td {r['max_td_diff_samples']:.3g} "
+            f"samples, est {r['max_est_diff_m']:.3g} m, ties {r['ties']}"
+            for r in out["records"] if not r["ok"])
+            + f"; ladder ties {out['ties']} of {out['scenes']} scenes")
+    log(f"phase 13: {time.perf_counter() - start:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3818,7 +3926,7 @@ def main() -> int:
     # Phase 3: kernels against their plain versions.
     results = kernel_phase(cf, torch)
 
-    # Phases 4, 4b, 5, 6, 7, 8, 9, 10, 11 and 12: the main paths, each
+    # Phases 4, 4b, 5, 6, 7, 8, 9, 10, 11, 12 and 13: the main paths, each
     # with its own launch counts.
     launches = {name: 0 for name in KERNELS}
     main_path_phase(cf, torch, slice_golden, sweep_golden, launches)
@@ -3831,6 +3939,7 @@ def main() -> int:
     recorded_phase(cf, torch, recorded_golden, sweep_golden, launches)
     serving_phase(cf, torch, launches)
     extraction_calibration_mesh_phase(cf, torch, sweep_golden, launches)
+    evaluation_fuzz_phase(cf, torch, launches)
     log(f"launches over the main paths: {launches}")
     missing = [k for k in KERNELS if launches.get(k, 0) == 0]
     if missing:

@@ -168,9 +168,13 @@ class StreamingLocalizer:
         self.loading = float(loading)
         self.nb_frame = int(nb_frame)
         self.nb_hop = self.nb_frame // 2
-        self.pool = tracking_ops._rate_bank_pool(
-            np.asarray(lower, np.float32), np.asarray(upper, np.float32),
-            self.coarse_n, self.fs, self.c)
+        # The coarse pool: the rate bank's where it detects, else the
+        # SRP's covering radius (the JAX package's, online.py:201 there).
+        pool_rule = (tracking_ops._rate_bank_pool if motion == "compensated"
+                     else lambda *box: srp_ops._resolve_pool(None, *box))
+        self.pool = pool_rule(np.asarray(lower, np.float32),
+                              np.asarray(upper, np.float32), self.coarse_n,
+                              self.fs, self.c)
         # The SRP's lag bound from the mics, here once: the step then
         # reads nothing back from the device.
         diam = float(np.max(np.linalg.norm(

@@ -25,7 +25,8 @@ compensated, a rate-steered re-detection per (segment, track).
 
 Three faults of the JAX package are repaired here, each pinned by a test
 of ``tests/test_torch_tracking.py``: the rate bank's coarse SRP pools over
-a cell's lag footprint (its pool and lag bound are computed on the host;
+a cell's covering radius less the envelope peak's half-width
+(``_rate_bank_pool``; its pool and lag bound are computed on the host;
 the JAX package's traced bounds fall back to a pool of 2,
 tracking.py:465 there); the re-detection pools a ``pool_w``-padded slice
 of the aligned window, so that the linear +-``w_half`` window never wraps
@@ -439,10 +440,27 @@ def _rate_bank_chunk(segments: int, rates: int, pairs: int, bins: int,
     return max(1, min(segments, RATE_BANK_CHUNK_BYTES // max(per_seg, 1)))
 
 
+#: Half-width (samples) of a rate-envelope peak: the envelope is the
+#: per-lag maximum over candidate rates one sample of drift apart, on an
+#: integer lag axis, so a peak stands one lag wide (at half its height, on
+#: every segment and pair of the crossing walkers) and reaches half a lag
+#: either side.
+_ENVELOPE_HALF_WIDTH = 0.5
+
+
 def _rate_bank_pool(lower, upper, coarse_n: int, fs: float, c) -> int:
-    """The rate bank's coarse pool (samples): a coarse cell's covering
-    radius over the box, on the host (``srp._resolve_pool``)."""
-    return srp_ops._resolve_pool(None, lower, upper, coarse_n, fs, c)
+    """The rate bank's coarse pool (samples), on the host: a coarse cell's
+    covering radius over the box (0.866 of its widest edge in samples of
+    travel time, ``srp._resolve_pool``'s radius) less the half-width its
+    envelope peaks already span, at least 1: the pooled map then reaches
+    the covering radius.  On the crossing walkers (3.2 m box, coarse_n 32,
+    radius 4.04 samples) that is pool 4 (float32, CPU: 0.032 / 0.014 m a
+    track; the full radius's pool 5 reads 0.055 / 0.066 m, and pool 3
+    swaps the walkers' identities)."""
+    extent = np.asarray(torch.as_tensor(upper).detach().cpu(), float) \
+        - np.asarray(torch.as_tensor(lower).detach().cpu(), float)
+    radius = 0.866 * float(np.max(extent)) / coarse_n * fs / float(c)
+    return max(1, int(np.ceil(radius - _ENVELOPE_HALF_WIDTH)))
 
 
 def _detect_rate_envelope(spec: torch.Tensor, mics: torch.Tensor, pi, pj,
@@ -464,7 +482,7 @@ def _detect_rate_envelope(spec: torch.Tensor, mics: torch.Tensor, pi, pj,
     powers (S, K) in extraction order.
 
     The coarse SRP stage pools over ``pool`` samples, which the caller
-    computes on the host from the box (``srp._resolve_pool``); the lag
+    computes on the host from the box (``_rate_bank_pool``); the lag
     bound comes from the mics.  The JAX package calls its SRP with traced
     bounds here, where both fall back (pool 2, the circular gather;
     tracking.py:465 there).  The subframe sum is taken before the inverse

@@ -180,8 +180,10 @@ def test_port_imports_without_jax():
     online localizer, array calibration and the mesh named), the
     numpy scene builder that ``chip_smoke.py`` loads from
     tools/torch_sweep_golden.py, K10's A/B bench
-    (tools/torch_rowdft_bench.py) and phase 12's scene helpers
-    (tools/torch_extraction_golden.py) import with jax blocked."""
+    (tools/torch_rowdft_bench.py), phase 12's scene helpers
+    (tools/torch_extraction_golden.py) and phase 13's tools (the
+    evaluation sweep, tools/torch_eval_sweep.py, and the kernel-path
+    fuzz, tools/torch_path_fuzz.py) import with jax blocked."""
     code = (
         "import sys, pkgutil, importlib, importlib.util\n"
         "sys.modules['jax'] = None\n"
@@ -213,6 +215,14 @@ def test_port_imports_without_jax():
         "spec.loader.exec_module(xtool)\n"
         "assert len(xtool.extraction_scenes()) == 3\n"
         "assert xtool.true_geometries()[1].shape == (6, 3)\n"
+        "tools = {}\n"
+        "for tname in ('torch_eval_sweep', 'torch_path_fuzz'):\n"
+        "    spec = importlib.util.spec_from_file_location("
+        "tname, 'tools/' + tname + '.py')\n"
+        "    tools[tname] = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(tools[tname])\n"
+        "assert len(tools['torch_eval_sweep'].sweep_rows('nees')) == 3\n"
+        "assert len(tools['torch_path_fuzz'].configs()) >= 10\n"
         "assert not any(k == 'pyaudiolocalization_tpu' or "
         "k.startswith('pyaudiolocalization_tpu.') for k in sys.modules)\n"
         "assert sys.modules['jax'] is None\n"

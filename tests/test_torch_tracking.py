@@ -20,7 +20,10 @@ differ by less than two coarse-cell diagonals; most segments must agree to
 
 from __future__ import annotations
 
+import importlib.util
 import itertools
+import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -465,6 +468,68 @@ def test_rate_bank_pools_on_the_host_not_at_two_samples():
         two = ttr.track_multiple(sigs, mics, FS, C, lower, upper,
                                  device="cpu", **kw)
     _close(two.positions[:2], np.asarray(want.positions)[:2])
+
+
+DATA = Path(__file__).resolve().parent / "data"
+SERVING_TOOL = DATA.parents[1] / "tools" / "torch_serving_golden.py"
+
+
+def _serving_mix(name):
+    """The float32 capture of ``name`` ('walkers' or 'walkers3') in
+    tests/data/torch_serving_bases.npz, rendered by the port as chip_smoke
+    phase 11 renders it (``_render_moving`` of each JAX-drawn base, then
+    the finalize), with the golden's mics and movers."""
+    from pyaudiolocalization_tpu_torch.models import simulator as tsim
+    from pyaudiolocalization_tpu_torch.ops import signal as tsig
+    spec = importlib.util.spec_from_file_location("serving_golden",
+                                                  SERVING_TOOL)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    golden = json.loads((DATA / "torch_serving_golden.json").read_text())
+    g = golden[name]
+    duration = tool.NUM_SEG * tool.SEGMENT / tool.FS
+    mix = 0.0
+    with np.load(DATA / "torch_serving_bases.npz") as bases:
+        for k, w in enumerate(g["walkers"]):
+            budget, lead = tool.moving_margins(w["start"], w["velocity"],
+                                               g["mics"], duration, 1024)
+            out = tsim._render_moving(
+                torch.as_tensor(bases[f"{name}_{k}"]), w["start"],
+                w["velocity"], g["mics"], tool.FS, tool.C, 1024, budget,
+                lead, 1000.0, 0.01, 1e-6)
+            mix = mix + tsig.dynamic_range_compression(
+                tsig.normalize_signal(out))
+    return tool, g, mix
+
+
+@pytest.mark.parametrize("name", ["walkers", "walkers3"])
+def test_rate_bank_pool_holds_the_crossing_walkers(name):
+    """The rate bank's pool on EVALUATION.md's crossing walkers (4-mic
+    tetra, 3.2 m box, coarse_n 32) and three walkers on the 8-mic room
+    array, float32 on the CPU: the covering radius (4.04 samples) less the
+    envelope peak's half-width is a pool of 4; the compensated detections
+    stay within 0.035 m of each walker on average (the full radius's pool
+    of 5 read 0.055 / 0.066 m on the two walkers), and every track ends on
+    the walker it started on."""
+    tool, g, mix = _serving_mix(name)
+    lower, upper = tool.ROOM_BOX
+    assert ttr._rate_bank_pool(lower, upper, tool.MULTI["coarse_n"],
+                               tool.FS, tool.C) == 4
+    mt = ttr.track_multiple(mix, g["mics"], tool.FS, tool.C, lower, upper,
+                            num_sources=len(g["walkers"]),
+                            motion="compensated", device="cpu", **tool.MULTI)
+    assert mt.positions.dtype == torch.float32
+    pos = mt.positions.numpy()
+    truth = tool.walker_truth(g["walkers"], mt.times.numpy())
+    k = len(g["walkers"])
+    first = [int(np.argmin(np.linalg.norm(pos[0] - truth[0, j], axis=-1)))
+             for j in range(k)]
+    last = [int(np.argmin(np.linalg.norm(pos[-1] - truth[-1, j], axis=-1)))
+            for j in range(k)]
+    assert sorted(first) == list(range(k)) and first == last, (first, last)
+    err = np.stack([np.linalg.norm(pos[:, first[j]] - truth[:, j], axis=-1)
+                    for j in range(k)], 1)
+    assert err.mean(0).max() <= 0.035, err.mean(0)
 
 
 def test_refinement_pools_without_wrapping_the_lag_window():
