@@ -21,7 +21,12 @@ in twelve phases:
    api's shapes; K3, K2 and K5 also at an odd mic count on the split, K5
    at the api's scene, each within 1e-6 of K3 then K2, and K3, K2 and K5
    across the scene chunks (21,846 scenes at nfft 512: two launches a
-   call, K5 bit-equal to K3 then K2); K7 also on a view that starts one
+   call, K5 bit-equal to K3 then K2); up to 4,096 points in one block
+   (``render_block``, ``window_block``), K3 at the trio sweep's 512 x 8
+   mics and the moving render's frames, K3, K2 and K5 at the short
+   sweep's 512 x 4 at 2,048 (K5 bit-equal to K3 then K2) and across the
+   chunks, each held to one device kernel a launch (K5 two); K7 also on a
+   view that starts one
    bin in and at a chunk of parity mode's bootstrap (256 x 44,100 bins),
    with its device time and ``torch.sgn``'s; K1
    and K9 at every shape with their device time and the device kernels a
@@ -256,11 +261,12 @@ ADDED = {("delay_sum", "odd"): 1, ("gcc_windowed", "odd"): 1,
          ("whitened_corr", "no_gate"): 2, ("fft_real", "long"): 3,
          ("whiten", "boot"): 3, ("delay_sum", "chunks"): 3,
          ("gcc_windowed", "chunks"): 3, ("scene_windowed", "chunks"): 3,
-         ("delay_sum", "narrowband"): 4, ("gcc_all_pairs", "subframes"): 5,
+         ("delay_sum", "trio"): 4, ("gcc_all_pairs", "subframes"): 5,
          ("gcc_all_pairs", "walkers"): 5, ("delay_sum", "moving"): 5,
          ("whiten", "stream"): 5, ("whiten", "stream28"): 5,
          ("gcc_all_pairs", "calibration"): 6,
-         ("gcc_all_pairs", "calibration6"): 6}
+         ("gcc_all_pairs", "calibration6"): 6, ("delay_sum", "short"): 7,
+         ("gcc_windowed", "short"): 7, ("scene_windowed", "short"): 7}
 # The sweep across K2's, K3's and K5's scene-chunk boundary: one scene past
 # the 65,535 grid rows of one launch at 4 mics (3 couples), at nfft 512.
 CHUNK_SCENES = 21846
@@ -269,6 +275,9 @@ LONG_SAMPLES = 1046019    # 23.7 s at 44.1 kHz: the api's nfft passes 2^20
 LONG_DRAWS = 64
 # The card's name and power limit (nvidia-smi), set by main().
 CARD = ["not read"]
+# Device kernels a call of K3 or K2 runs at phase 3's one-block shapes
+# (nfft <= 4,096: one a scene chunk; K5 twice as many).
+ONE_BLOCK_KERNELS = {"trio": 1, "short": 1, "chunks": 2}
 
 # name -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -332,6 +341,25 @@ def render_ops(scenes, mics, paths, n, out, noise):
     inverses, finalize (~10 a sample) and Philox + Box-Muller (~80)."""
     return scenes * (_rfft_ops(n) + mics * (
         _rfft_ops(n) + paths * (n // 2) * 20 + out * (10 + 80 * noise)))
+
+
+def scene_bound(name, scenes, mics, paths, total, out, nfft, wq, noise):
+    """Bound of one call of K3 (``delay_sum``), K2 (``gcc_windowed`` of
+    (scenes, mics, out) signals) or K5 (``scene_windowed``, noise always
+    on): base rows of ``total`` samples, ``paths`` (tau, gain) pairs a mic
+    row of ``out`` samples, windows of 2 * wq * 128 lags and 3 statistics a
+    pair (wq None: no window)."""
+    pairs = mics * (mics - 1) // 2
+    window = 0 if wq is None else scenes * pairs * (2 * wq * 128 + 3)
+    render = scenes * total + 2 * scenes * mics * paths + out
+    gcc = gcc_ops(scenes, mics, pairs, nfft) + 3 * scenes * pairs * nfft
+    if name == "delay_sum":
+        return bound(4 * (render + 3 * scenes * noise + scenes * mics * out),
+                     render_ops(scenes, mics, paths, nfft, out, noise))
+    if name == "gcc_windowed":
+        return bound(4 * (scenes * mics * out + nfft // 2 + 1 + window), gcc)
+    return bound(4 * (render + 3 * scenes + nfft // 2 + 1 + window),
+                 render_ops(scenes, mics, paths, nfft, out, 1) + gcc)
 
 
 def compare(name, kernel_fn, plain_fn, tol, reps, least, scale_by_max=False,
@@ -438,13 +466,21 @@ def kernel_phase(cf, torch):
     results = {}
     reverb, multi = srp_specs()
     trio = _spec(json.loads(NB_GOLDEN.read_text())["trio/beam"]["spec"])
+    # The short-frame sweep (the verify recipe's and EVALUATION.md's
+    # weighting section): 16 kHz x 0.1 s, 1,694 padded samples at 2,048.
+    from pyaudiolocalization_tpu_torch.parallel import sweep as sw
+    short = sw.SweepSpec(fs=16000.0, duration=0.1)
+    short_wq = sw._tdoa_window_wq(short)
     # K3: render.  Main paths: the sweep's split render (512 scenes, 1
     # path, noise, 44,356 padded samples), the single scene's (22 paths =
     # direct + 21 image sources of 3 planes at order 3, 50,292 padded
     # samples, no noise), the reverberant SRP sweep's (512 scenes, 37
     # paths, noise) and the multi-source cube's raw per-source renders (128
     # scenes x 2 sources, 8 mics, no finalize); raw renders are held
-    # relative to their peak.
+    # relative to their peak.  Up to 4,096 points (the edge, the trio
+    # sweep's 8-mic render, the short sweep's and the chunks at 512) K3 is
+    # one device kernel a launch (``render_block``), one launch a scene
+    # chunk.
     for tag, (b, m, paths, total, out, nfft, noise, fin) in {
             "main": (SWEEP_SCENES, 4, 1, 44356, N, NFFT, True, True),
             "scene": (1, 4, 22, 50292, N, NFFT, True, True),
@@ -458,15 +494,15 @@ def kernel_phase(cf, torch):
             "odd": (3, 3, 5, 7000, 6000, 8192, True, True),
             "edge": (3, 3, 5, 3500, 3000, 4096, True, True),
             "chunks": (CHUNK_SCENES, 4, 1, 448, 400, 512, True, True),
-            "narrowband": (SWEEP_SCENES, 8, 1, trio.total_samples,
-                           trio.num_samples, next_pow2(trio.total_samples),
-                           True, True)}.items():
+            "trio": (SWEEP_SCENES, 8, 1, trio.total_samples,
+                     trio.num_samples, next_pow2(trio.total_samples), True,
+                     True),
+            "short": (SWEEP_SCENES, 4, 1, short.total_samples,
+                      short.num_samples, short.nfft, True, True)}.items():
         draw("delay_sum", tag)
         base, tau, gains, snr, seeds, fade = scene_inputs(b, m, paths,
                                                           total, out)
         nz = (snr, seeds) if noise else (None, None)
-        nbytes = 4 * (b * total + 2 * b * m * paths + out + 3 * b * noise
-                      + b * m * out)
         res = compare(
             f"delay_sum[{tag}] B={b} M={m} paths={paths} nfft={nfft} "
             f"out={out} noise={noise} finalize={fin}",
@@ -475,11 +511,13 @@ def kernel_phase(cf, torch):
             lambda: cf.delay_sum_plain(base, tau, gains, nfft, out, fade,
                                        fin, *nz),
             tol=2e-5, reps=3 if b > 1 else 20, scale_by_max=not fin,
-            least=bound(nbytes, render_ops(b, m, paths, nfft, out, noise)))
-        if tag in ("main", "scene", "reverb", "narrowband"):
+            least=scene_bound("delay_sum", b, m, paths, total, out, nfft,
+                              None, noise))
+        if tag in ("main", "scene", "reverb", "trio", "short", "chunks"):
             log_device(f"delay_sum[{tag}]",
                        lambda: cf.delay_sum(base, tau, gains, nfft, out,
-                                            fade, fin, *nz))
+                                            fade, fin, *nz),
+                       kernels=ONE_BLOCK_KERNELS.get(tag))
         if tag == "chunks":
             per_call(cf, "delay_sum", lambda: cf.delay_sum(
                 base, tau, gains, nfft, out, fade, fin, *nz), 2)
@@ -525,31 +563,40 @@ def kernel_phase(cf, torch):
             results["gcc_all_pairs"] = res
 
     # K2: windowed GCC.  Main: the sweep's (512 scenes, wq 6); also the
-    # api fast path's single scene (wq 21) and an odd edge shape.
+    # api fast path's single scene (wq 21), an odd edge shape, the short
+    # sweep's 512 scenes at 2,048 and the chunks at 512 (one device kernel
+    # a launch, ``window_block``).
     for tag, (b, m, length, nfft, wq) in {
             "main": (SWEEP_SCENES, 4, N, NFFT, 6),
             "api": (1, 4, N, NFFT, 21),
             "odd": (3, 3, 6000, 8192, 2),
             "edge": (2, 3, 3000, 4096, 2),
-            "chunks": (CHUNK_SCENES, 4, 400, 512, 2)}.items():
+            "chunks": (CHUNK_SCENES, 4, 400, 512, 2),
+            "short": (SWEEP_SCENES, 4, short.num_samples, short.nfft,
+                      short_wq)}.items():
         draw("gcc_windowed", tag)
         pi, pj = pairs(m)
         sig = randn(b, m, length).contiguous()
         mask = cf.band_mask(nfft, (300.0, 3400.0), FS, device=dev)
         p = len(pi)
-        nbytes = 4 * (b * m * length + nfft // 2 + 1
-                      + b * p * (2 * wq * 128 + 3))
-        # "chunks": the largest float32 rounding over 131,076 rows of 512
-        # lags (the radix-2 passes; 1.6e-6 on the card) needs 2e-6.
+        # "chunks": float32 rounding over 131,076 rows of 512 lags needs
+        # 2e-6, and its margin is small.  `window_block` reads 8.7e-7
+        # from the float32 twin on these inputs (the radix-2 passes 1.6e-6)
+        # but 2.1e-6 on the A/B tool's inputs of one run, where neither
+        # side is exact: at this shape the float32 twin lies up to 1.5e-6
+        # from its float64 run, the kernel up to 1.2e-6
+        # (tools/torch_rowdft_bench.py, which holds K2 here to that run).
         res = compare(
             f"gcc_windowed[{tag}] B={b} M={m} P={p} nfft={nfft} wq={wq}",
             lambda: cf.gcc_windowed(sig, pi, pj, nfft, wq, mask),
             lambda: cf.gcc_windowed_plain(sig, pi, pj, nfft, wq, mask),
             tol=2e-6 if tag == "chunks" else 1e-6, reps=3 if b > 1 else 20,
-            least=bound(nbytes, gcc_ops(b, m, p, nfft) + 3 * b * p * nfft))
-        if tag in ("main", "api"):
+            least=scene_bound("gcc_windowed", b, m, 0, 0, length, nfft, wq,
+                              0))
+        if tag in ("main", "api", "short", "chunks"):
             log_device(f"gcc_windowed[{tag}]",
-                       lambda: cf.gcc_windowed(sig, pi, pj, nfft, wq, mask))
+                       lambda: cf.gcc_windowed(sig, pi, pj, nfft, wq, mask),
+                       kernels=ONE_BLOCK_KERNELS.get(tag))
         if tag == "chunks":
             per_call(cf, "gcc_windowed", lambda: cf.gcc_windowed(
                 sig, pi, pj, nfft, wq, mask), 2)
@@ -719,18 +766,17 @@ def kernel_phase(cf, torch):
     tau = (rand(frames, m, 1) * budget).contiguous()
     gains = rand(frames, m, 1).contiguous()
     fade = fade_window(total, dtype=torch.float32, device=dev)
-    nbytes = 4 * (frames * total + 2 * frames * m + total
-                  + frames * m * total)
     compare(f"delay_sum[moving] B={frames} M={m} paths=1 nfft={nfft} "
             f"out={total} noise=False finalize=False",
             lambda: cf.delay_sum(base, tau, gains, nfft, total, fade, False),
             lambda: cf.delay_sum_plain(base, tau, gains, nfft, total, fade,
                                        False),
             tol=2e-5, reps=20, scale_by_max=True,
-            least=bound(nbytes, render_ops(frames, m, 1, nfft, total, 0)))
+            least=scene_bound("delay_sum", frames, m, 1, total, total, nfft,
+                              None, 0))
     log_device("delay_sum[moving]",
                lambda: cf.delay_sum(base, tau, gains, nfft, total, fade,
-                                    False))
+                                    False), kernels=1)
     for tag, shape in {"stream": (6, 4097), "stream28": (28, 2049)}.items():
         draw("whiten", tag)
         spec = torch.complex(randn(*shape), randn(*shape)).contiguous()
@@ -794,22 +840,24 @@ def kernel_phase(cf, torch):
 
     # K5: the whole scene.  Main: the sweep's 512 scenes; the api's scene
     # (22 paths, wq 21) and an odd mic count on the split; edge: out ==
-    # nfft on the passes.  Fused and split must agree to 1e-6 with equal
-    # argmax: they run the same stage code.
+    # nfft in one block; the short sweep's 512 scenes at 2,048 and the
+    # chunks at 512 (two device kernels a launch, ``render_block`` and
+    # ``window_block``).  Fused and split must agree to 1e-6 with equal
+    # argmax: they run the same stage code; at the short sweep's shape and
+    # across the chunks to the bit.
     for tag, (b, m, paths, total, out, nfft, wq) in {
             "main": (SWEEP_SCENES, 4, 1, 44356, N, NFFT, 6),
             "api": (1, 4, 22, 50292, N, NFFT, 21),
             "odd": (3, 3, 2, 7000, 6000, 8192, 2),
             "edge": (2, 2, 2, 1024, 1024, 1024, 2),
-            "chunks": (CHUNK_SCENES, 4, 1, 448, 400, 512, 2)}.items():
+            "chunks": (CHUNK_SCENES, 4, 1, 448, 400, 512, 2),
+            "short": (SWEEP_SCENES, 4, 1, short.total_samples,
+                      short.num_samples, short.nfft, short_wq)}.items():
         draw("scene_windowed", tag)
         pi, pj = pairs(m)
         base, tau, gains, snr, seeds, fade = scene_inputs(b, m, paths,
                                                           total, out)
         mask = cf.band_mask(nfft, (300.0, 3400.0), FS, device=dev)
-        p = len(pi)
-        nbytes = 4 * (b * total + 2 * b * m * paths + out + 3 * b
-                      + nfft // 2 + 1 + b * p * (2 * wq * 128 + 3))
         res = compare(
             f"scene_windowed[{tag}] B={b} M={m} paths={paths} nfft={nfft} "
             f"out={out} wq={wq}",
@@ -818,8 +866,8 @@ def kernel_phase(cf, torch):
             lambda: cf.scene_windowed_plain(base, tau, gains, pi, pj, nfft,
                                             out, wq, fade, mask, snr, seeds),
             tol=1e-5, reps=3,
-            least=bound(nbytes, render_ops(b, m, paths, nfft, out, 1)
-                        + gcc_ops(b, m, p, nfft) + 3 * b * p * nfft))
+            least=scene_bound("scene_windowed", b, m, paths, total, out,
+                              nfft, wq, 1))
         split = cf.gcc_windowed(cf.delay_sum(base, tau, gains, nfft, out,
                                              fade, True, snr, seeds),
                                 pi, pj, nfft, wq, mask)
@@ -831,18 +879,22 @@ def kernel_phase(cf, torch):
         if gap > 1e-6:
             raise AssertionError(f"scene_windowed[{tag}] departs from the "
                                  f"split kernels by {gap:.3e}")
-        if tag == "chunks":
+        if tag in ("chunks", "short"):
             if not all(torch.equal(a, c) for a, c in zip(fused, split)):
-                raise AssertionError("scene_windowed[chunks] is not bit-equal "
-                                     "to delay_sum -> gcc_windowed")
+                raise AssertionError(f"scene_windowed[{tag}] is not "
+                                     "bit-equal to delay_sum -> gcc_windowed")
+            log(f"scene_windowed[{tag}] equals delay_sum -> gcc_windowed to "
+                "the bit")
+        if tag == "chunks":
             per_call(cf, "scene_windowed", lambda: cf.scene_windowed(
                 base, tau, gains, pi, pj, nfft, out, wq, fade, mask, snr,
                 seeds), 2)
-        if tag in ("main", "api"):
+        if tag in ("main", "api", "short", "chunks"):
             log_device(f"scene_windowed[{tag}]",
                        lambda: cf.scene_windowed(base, tau, gains, pi, pj,
                                                  nfft, out, wq, fade, mask,
-                                                 snr, seeds), 3)
+                                                 snr, seeds), 3,
+                       2 * ONE_BLOCK_KERNELS.get(tag, 0) or None)
         if tag == "main":
             results["scene_windowed"] = res
     start = time.perf_counter()

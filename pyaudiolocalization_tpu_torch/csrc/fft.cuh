@@ -11,10 +11,11 @@
 //    shared memory a block can hold, so every pass streams the rows
 //    through device memory (and the 50 MB L2): 16 bytes per point per
 //    pass, about 16 * log2(n) bytes per point and transform, and one
-//    launch per pass.  K2, K3 and K5 run on it up to 4096 points, K1
-//    where neither one block nor its split's strips fit, K2, K3 and K5
-//    where theirs do not, and K1, K4b, K6 and K9 above 2^20; they fuse
-//    their first or last pass into a prologue or epilogue.
+//    launch per pass.  K1, K2 and K5 run on it where neither one block
+//    nor their split's strips fit (K2 and K5: more than 10 mics at 4096,
+//    24 at 2048), K3 where its strips do not, and every kernel above
+//    2^20; they fuse their first or last pass into a prologue or
+//    epilogue.
 //
 // 2. On-chip sub-transforms (`block_fft`): one block transforms S
 //    sequences of length L (L * S <= kElems * 1024) held in shared memory,
@@ -34,7 +35,7 @@
 //    plane are one (K10b, and K10a with its radix-16 stages on the tensor
 //    cores), and so are the 128-point lane DFTs of 32 of its rows (K10c).
 //    Up to 4096 points one block holds a whole row (K4a, K4b, K6, K1,
-//    K9).
+//    K9, K3's render and, where a scene's rows fit, K2's GCC).
 //    Bound: device memory, one read and one write per launch.
 #pragma once
 

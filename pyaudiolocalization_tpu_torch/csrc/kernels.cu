@@ -73,41 +73,60 @@ __device__ __forceinline__ float2 whiten(float2 a, float2 b, float eps) {
   return make_float2(rr / mag, ri / mag);
 }
 
-__device__ __forceinline__ float block_max(float v, float* shared) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+// The block's maxima (kMax) or tree sums of H values a thread at once:
+// warp shuffles, then one warp over the warps' partials; shared holds 32 *
+// H floats.  Every thread gets the results.
+template <bool kMax, int H>
+__device__ __forceinline__ void block_reduce(float (&v)[H], float* shared) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const float o = __shfl_xor_sync(0xffffffffu, v[h], off);
+      v[h] = kMax ? fmaxf(v[h], o) : v[h] + o;
+    }
+  }
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   __syncthreads();
-  if (lane == 0) shared[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < (int)(blockDim.x >> 5) ? shared[lane] : -INFINITY;
-    for (int off = 16; off > 0; off >>= 1)
-      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-    if (lane == 0) shared[0] = v;
+  if (lane == 0) {
+#pragma unroll
+    for (int h = 0; h < H; ++h) shared[32 * h + warp] = v[h];
   }
   __syncthreads();
-  return shared[0];
+  if (warp == 0) {
+    const bool live = lane < (int)(blockDim.x >> 5);
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+      v[h] = live ? shared[32 * h + lane] : (kMax ? -INFINITY : 0.0f);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        const float o = __shfl_xor_sync(0xffffffffu, v[h], off);
+        v[h] = kMax ? fmaxf(v[h], o) : v[h] + o;
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int h = 0; h < H; ++h) shared[32 * h] = v[h];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < H; ++h) v[h] = shared[32 * h];
 }
 
-// Tree sum over the block: warp shuffles, then one warp over the partials.
+__device__ __forceinline__ float block_max(float v, float* shared) {
+  float a[1] = {v};
+  block_reduce<true>(a, shared);
+  return a[0];
+}
+
 __device__ __forceinline__ float block_sum(float v, float* shared) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) shared[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < (int)(blockDim.x >> 5) ? shared[lane] : 0.0f;
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_xor_sync(0xffffffffu, v, off);
-    if (lane == 0) shared[0] = v;
-  }
-  __syncthreads();
-  return shared[0];
+  float a[1] = {v};
+  block_reduce<false>(a, shared);
+  return a[0];
 }
 
 // (value, index) maximum with ties going to the smallest index.
@@ -1160,16 +1179,85 @@ __global__ void render_mix(const float2* __restrict__ zb,
   }
 }
 
-// One block per mic row r = scene * mics + mic: scale, fade and trim the
-// packed inverse, then the optional finalize (peak-normalize,
+// The finish of H mic rows after their scale and fade, in place: sample t
+// of row h at o[t * stride + h], t < out_len, `peak[h]` the calling
+// thread's max |o| over its samples of row h, row h being mic mic[h] of
+// scene scene[h].  The optional finalize (peak-normalize,
 // sign*log1p(|x|/0.8+1e-8), re-normalize; silent rows pass through), then
 // the optional measurement noise: sigma = rms * 10^(-snr/20) over the kept
 // samples, times Philox normals keyed by (seed0, seed1 + mic * 0x9E3779B9)
 // (the TPU kernel's _render_postprocess, ops/pallas_fft.py:1788-1834).
-// With packed_out the row is written in place into the packed buffer (the
-// forward input of K5's GCC stage), zero-padded to n; otherwise to
-// out (rows, out_len).  Each thread revisits only the samples it wrote, so
-// the passes need no cross-thread ordering beyond the reductions.
+// The H rows share each block reduction (shared: 32 * H floats).  Each
+// thread revisits only the samples t = threadIdx.x + k * blockDim.x, which
+// it scaled, so the steps need no cross-thread ordering beyond the
+// reductions; every thread of the block calls it.
+template <int H>
+__device__ __forceinline__ void finish_rows(float* o, int stride, int out_len,
+                                            float (&peak)[H], int finalize,
+                                            const float* __restrict__ snr_db,
+                                            const int* __restrict__ seeds,
+                                            const int (&scene)[H],
+                                            const int (&mic)[H],
+                                            float* shared) {
+  if (finalize) {
+    block_reduce<true>(peak, shared);
+    float cpeak[H];
+#pragma unroll
+    for (int h = 0; h < H; ++h) cpeak[h] = 0.0f;
+    for (int t = threadIdx.x; t < out_len; t += blockDim.x) {
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        float y = o[(size_t)t * stride + h];
+        if (peak[h] != 0.0f) y = y / peak[h];
+        const float sgn = (y > 0.0f) - (y < 0.0f);
+        const float comp = sgn * log1pf(fabsf(y) / 0.8f + 1e-8f);
+        o[(size_t)t * stride + h] = comp;
+        cpeak[h] = fmaxf(cpeak[h], fabsf(comp));
+      }
+    }
+    block_reduce<true>(cpeak, shared);
+    for (int t = threadIdx.x; t < out_len; t += blockDim.x) {
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        if (cpeak[h] > 0.0f)
+          o[(size_t)t * stride + h] = o[(size_t)t * stride + h] / cpeak[h];
+    }
+  }
+  if (snr_db != nullptr) {
+    float ss[H];
+#pragma unroll
+    for (int h = 0; h < H; ++h) ss[h] = 0.0f;
+    for (int t = threadIdx.x; t < out_len; t += blockDim.x) {
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        const float y = o[(size_t)t * stride + h];
+        ss[h] += y * y;
+      }
+    }
+    block_reduce<false>(ss, shared);
+    float sigma[H];
+    uint32_t k0[H], k1[H];
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const float rms = sqrtf(ss[h] / (float)out_len);
+      sigma[h] = rms * expf(-snr_db[scene[h]] * 0.11512925464970229f);
+      k0[h] = (uint32_t)seeds[2 * scene[h]];
+      k1[h] = (uint32_t)seeds[2 * scene[h] + 1] +
+              (uint32_t)mic[h] * palt::kPhiloxW0;
+    }
+    for (int t = threadIdx.x; t < out_len; t += blockDim.x) {
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        o[(size_t)t * stride + h] +=
+            sigma[h] * palt::philox_normal((uint32_t)t, k0[h], k1[h]);
+    }
+  }
+}
+
+// One block per mic row r = scene * mics + mic of the packed inverse z
+// (unscaled): scale, fade and trim, then `finish_rows`.  With packed_out
+// the row is written in place into the packed buffer (the forward input of
+// K5's GCC stage), zero-padded to n; otherwise to out (rows, out_len).
 __global__ void render_finalize(float2* z, int n, int mics, int out_len,
                                 const float* __restrict__ fade, float scale,
                                 int finalize, const float* __restrict__ snr_db,
@@ -1199,39 +1287,11 @@ __global__ void render_finalize(float2* z, int n, int mics, int out_len,
     for (int t = out_len + threadIdx.x; t < n; t += blockDim.x)
       o[(size_t)t * stride] = 0.0f;
   }
-  if (finalize) {
-    peak = block_max(peak, shared);
-    float cpeak = 0.0f;
-    for (int t = threadIdx.x; t < out_len; t += blockDim.x) {
-      float y = o[(size_t)t * stride];
-      if (peak != 0.0f) y = y / peak;
-      const float sgn = (y > 0.0f) - (y < 0.0f);
-      const float comp = sgn * log1pf(fabsf(y) / 0.8f + 1e-8f);
-      o[(size_t)t * stride] = comp;
-      cpeak = fmaxf(cpeak, fabsf(comp));
-    }
-    cpeak = block_max(cpeak, shared);
-    if (cpeak > 0.0f) {
-      for (int t = threadIdx.x; t < out_len; t += blockDim.x)
-        o[(size_t)t * stride] = o[(size_t)t * stride] / cpeak;
-    }
-  }
-  if (snr_db != nullptr) {
-    float ss = 0.0f;
-    for (int t = threadIdx.x; t < out_len; t += blockDim.x) {
-      const float y = o[(size_t)t * stride];
-      ss += y * y;
-    }
-    ss = block_sum(ss, shared);
-    const float rms = sqrtf(ss / (float)out_len);
-    const float sigma = rms * expf(-snr_db[scene] * 0.11512925464970229f);
-    const uint32_t k0 = (uint32_t)seeds[2 * scene];
-    const uint32_t k1 = (uint32_t)seeds[2 * scene + 1] +
-                        (uint32_t)(r - scene * mics) * palt::kPhiloxW0;
-    for (int t = threadIdx.x; t < out_len; t += blockDim.x)
-      o[(size_t)t * stride] += sigma * palt::philox_normal((uint32_t)t, k0,
-                                                           k1);
-  }
+  float peaks[1] = {peak};
+  const int scenes[1] = {scene};
+  const int mic[1] = {r - scene * mics};
+  finish_rows(o, stride, out_len, peaks, finalize, snr_db, seeds, scenes,
+              mic, shared);
 }
 
 // ---- the render and windowed-GCC stages on the split ---------------------
@@ -1239,8 +1299,10 @@ __global__ void render_finalize(float2* z, int n, int mics, int out_len,
 // K3's render and K2's windowed GCC (K5 runs both) on K4b's four-step
 // split n = n1 * n2, for 8,192 <= n <= 2^20 where their strips fit one
 // block (`cuda_fft.scene_stages` chooses, from n and the mic count, for
-// K3, K2 and K5 alike); elsewhere `render_stage` and `window_stage` run
-// the radix-2 passes.  Three launches a stage:
+// K3, K2 and K5 alike); up to 4,096 points one block holds a packed base
+// row (`render_block`) or a scene (`window_block`, where its rows fit);
+// elsewhere `render_stage` and `window_stage` run the radix-2 passes.
+// Three launches a stage on the split:
 //
 // render:  K4a's pass 1 over the base rows (two scenes a packed row);
 //          `render_rows`: the base strip's forward row DFTs, then for
@@ -1755,18 +1817,99 @@ corr_rows(const float2* __restrict__ a, const float2* __restrict__ b,
   store_rows(work, zc + (size_t)c * n, lo, hi, blk, n1, n2);
 }
 
-// K1 in one block (n <= 4096).  Grid (scenes, groups): block (scene, g)
-// loads the packed mic rows that hold the scene's mics (rows packed
-// across scenes, as on the split) and transforms them in shared memory;
-// then for every gridDim.y-th couple c from the g-th it forms the
-// whitened, band-masked cross-spectra of pairs 2c and 2c + 1 (`gcc_cross`'s
-// arithmetic) as one packed Hermitian row in the spare row, runs its
-// inverse and writes both correlations times 1/n.
-__global__ void __launch_bounds__(256)
-gcc_block(RowLoad load, int mics, const int* __restrict__ pairs_i,
-          const int* __restrict__ pairs_j, int num_pairs,
-          const float* __restrict__ band, float eps, int n,
-          const float2* __restrict__ tw, float* __restrict__ out) {
+// K1's epilogue of `gcc_body`: both correlations of the packed inverse
+// (pairs p0 and p0 + 1 of the scene) times 1/n into out (scenes,
+// num_pairs, n).
+struct CorrOut {
+  float* out;
+  __device__ __forceinline__ void operator()(const float2* work, int scene,
+                                             int num_pairs, int p0, bool two,
+                                             int n) const {
+    const float scale = 1.0f / (float)n;
+    float* o0 = out + ((size_t)scene * num_pairs + p0) * (size_t)n;
+    for (int t = threadIdx.x; t < n; t += blockDim.x) {
+      const float2 v = work[t];
+      o0[t] = v.x * scale;
+      if (two) o0[n + t] = v.y * scale;
+    }
+  }
+};
+
+// K2's epilogue of `gcc_body` (`window_block`): both correlations times
+// 1/n, reduced as `last_pass_window` reduces them: the lags [-w, w) into
+// win (scenes, num_pairs, 2w) (window sample s holds natural index n - w +
+// s, then s - w) and stats (scenes, num_pairs, 3): mean |corr|, the
+// maximum and the smallest natural index attaining it (-0 taken as +0, so
+// a silent row's maximum is +0 at index 0, as `arg_key` takes it on the
+// split).  Block reductions in a fixed order (a serial sum a thread over
+// t = threadIdx.x + k * blockDim.x, then the shuffle trees of `block_sum`
+// and `block_argmax`, which break ties by index): no atomics, no partials.
+struct WindowOut {
+  float* win;
+  float* stats;
+  int w;
+  __device__ __forceinline__ void operator()(const float2* work, int scene,
+                                             int num_pairs, int p0, bool two,
+                                             int n) const {
+    __shared__ float sv[32];
+    __shared__ int si[32];
+    const float scale = 1.0f / (float)n;
+    const size_t q0 = (size_t)scene * num_pairs + p0;
+    float* w0 = win + q0 * (size_t)(2 * w);
+    float* w1 = w0 + 2 * w;
+    float sum0 = 0.0f, sum1 = 0.0f;
+    float max0 = -INFINITY, max1 = -INFINITY;
+    int idx0 = INT_MAX, idx1 = INT_MAX;
+    for (int t = threadIdx.x; t < n; t += blockDim.x) {
+      const float2 v = work[t];
+      const float a = v.x * scale;
+      const float d = v.y * scale;
+      sum0 += fabsf(a);
+      sum1 += fabsf(d);
+      arg_update(max0, idx0, a == 0.0f ? 0.0f : a, t);
+      arg_update(max1, idx1, d == 0.0f ? 0.0f : d, t);
+      const int at = t < w ? w + t : (t >= n - w ? t - (n - w) : -1);
+      if (at >= 0) {
+        w0[at] = a;
+        if (two) w1[at] = d;
+      }
+    }
+    sum0 = block_sum(sum0, sv);
+    sum1 = block_sum(sum1, sv);
+    block_argmax(max0, idx0, sv, si);
+    block_argmax(max1, idx1, sv, si);
+    if (threadIdx.x == 0) {
+      float* s0 = stats + q0 * 3;
+      s0[0] = sum0 / (float)n;
+      s0[1] = max0;
+      s0[2] = (float)idx0;
+      if (two) {
+        s0[3] = sum1 / (float)n;
+        s0[4] = max1;
+        s0[5] = (float)idx1;
+      }
+    }
+  }
+};
+
+// A scene's GCC in one block (n <= 4096), K1's and K2's.  Grid (scenes,
+// groups): block (scene, g) loads the packed mic rows that hold the
+// scene's mics (rows packed across scenes, as on the split; `load` gives
+// them: K1's and K2's rows, K5's finished signals) and transforms them in
+// shared memory; then for every gridDim.y-th couple c from the g-th it
+// forms the whitened, band-masked cross-spectra of pairs 2c and 2c + 1
+// (`gcc_cross`'s arithmetic) as one packed Hermitian row in the spare row,
+// runs its inverse and hands it to `epi` (K1: `CorrOut`; K2 and K5:
+// `WindowOut`).  Needs blockDim.x >= fft_threads(n, 1), whole warps.
+template <class Load, class Epilogue>
+__device__ __forceinline__ void gcc_body(Load load, int mics,
+                                         const int* __restrict__ pairs_i,
+                                         const int* __restrict__ pairs_j,
+                                         int num_pairs,
+                                         const float* __restrict__ band,
+                                         float eps, int n,
+                                         const float2* __restrict__ tw,
+                                         const Epilogue& epi) {
   float2* stw = palt::fft_shared();
   float2* spec = stw + (n >> 1);
   const int scene = blockIdx.x;
@@ -1781,7 +1924,6 @@ gcc_block(RowLoad load, int mics, const int* __restrict__ pairs_i,
     spec[idx] = load.row(first + (idx >> shift))(idx & (n - 1));
   for (int k = 0; k < span; ++k)
     palt::block_fft<1>(spec + (size_t)k * n, 1, 0, n, stw, 1.0f);
-  const float scale = 1.0f / (float)n;
   for (int c = blockIdx.y; c < couples; c += gridDim.y) {
     const int p0 = 2 * c;
     const bool two = p0 + 1 < num_pairs;
@@ -1809,14 +1951,34 @@ gcc_block(RowLoad load, int mics, const int* __restrict__ pairs_i,
       store_packed(work, q, n, r0, r1);
     }
     palt::block_fft<1>(work, 1, 0, n, stw, -1.0f);
-    float* o0 = out + ((size_t)scene * num_pairs + p0) * (size_t)n;
-    for (int t = threadIdx.x; t < n; t += blockDim.x) {
-      const float2 v = work[t];
-      o0[t] = v.x * scale;
-      if (two) o0[n + t] = v.y * scale;
-    }
+    epi(work, scene, num_pairs, p0, two, n);
     __syncthreads();  // the next couple rewrites work
   }
+}
+
+// K1 in one block (`gcc_body` with `CorrOut`).
+__global__ void __launch_bounds__(256)
+gcc_block(RowLoad load, int mics, const int* __restrict__ pairs_i,
+          const int* __restrict__ pairs_j, int num_pairs,
+          const float* __restrict__ band, float eps, int n,
+          const float2* __restrict__ tw, float* __restrict__ out) {
+  gcc_body(load, mics, pairs_i, pairs_j, num_pairs, band, eps, n, tw,
+           CorrOut{out});
+}
+
+// K2's windowed-GCC stage in one block (`gcc_body` with `WindowOut`): K2
+// over its rows (`RowLoad`), K5 over the finished signals that
+// `render_block` packed (`PackedLoad`).  Two blocks an SM cap a thread at
+// 128 registers (with spills).
+template <class Load>
+__global__ void __launch_bounds__(256, 2)
+window_block(Load load, int mics, const int* __restrict__ pairs_i,
+             const int* __restrict__ pairs_j, int num_pairs,
+             const float* __restrict__ band, float eps, int n,
+             const float2* __restrict__ tw, int w, float* __restrict__ win,
+             float* __restrict__ stats) {
+  gcc_body(load, mics, pairs_i, pairs_j, num_pairs, band, eps, n, tw,
+           WindowOut{win, stats, w});
 }
 
 // K9 in one block (n <= 4096).  Block c: whiten(a * conj(b)) * band of
@@ -1858,6 +2020,155 @@ corr_block(const float2* __restrict__ a, const float2* __restrict__ b,
 // Threads of K1's and K9's one-block kernels (every n <= 4096 needs at
 // most 256 for block_fft; the rest take part in the loads and stores).
 constexpr int kBlockThreads = 256;
+
+// Threads of `render_block` and `window_block` at n <= 4096: what
+// block_fft needs (n / 16, so 256 at 4,096), at least two warps, so that
+// the mixes, the finalize and the epilogue's reductions keep more than one
+// warp busy while a short row's transform needs one (32 blocks of 64
+// threads fill an SM at n <= 1,024).  K3, K2 and K5 take the same count at
+// a length, so their block reductions sum in the same order.
+inline int block_threads(int n) {
+  const int threads = palt::fft_threads(n, 1);
+  return threads < 64 ? 64 : threads;
+}
+
+// K3's render stage in one block (n <= 4096), with the finish of
+// `render_finalize`.  Grid (packed base rows, groups): block (cb, g) loads
+// the packed base row cb (scenes 2cb and 2cb + 1) and transforms it in
+// shared memory once; its mic rows are packed rows [cb * mics, (cb + 1) *
+// mics) (any mic count: mic rows are numbered scene * mics + mic, so a
+// packed row of an odd count may hold the last mic of scene 2cb and the
+// first of 2cb + 1).  For every gridDim.y-th of them from the g-th: the
+// mixes (`render_mix`'s arithmetic, mic row r from the spectrum of scene r
+// / mics) packed two mic rows a Hermitian row in the work row, its
+// inverse, then for its two mic rows at once the scale 1/n, the fade, the
+// trim and `finish_rows` in shared memory; the finished rows go to out
+// (rows, out_len) (K3) or, zero-padded to n, to packed row pm of `packed`
+// (K5: the forward input of its GCC stage, as `render_finalize` writes
+// it, so `window_block` reads K3's floats in K2's packing).  Shared memory
+// n/2 twiddles, the base row and one work row, whatever the mic and path
+// counts.
+__global__ void __launch_bounds__(256, 2)
+render_block(RowLoad load, const float* __restrict__ tau,
+             const float* __restrict__ gain, int rows, int mics, int paths,
+             int n, int out_len, const float* __restrict__ fade,
+             int finalize, const float* __restrict__ snr_db,
+             const int* __restrict__ seeds, const float2* __restrict__ tw,
+             float* __restrict__ out, float2* __restrict__ packed) {
+  __shared__ float red[64];
+  float2* stw = palt::fft_shared();
+  float2* spec = stw + (n >> 1);
+  float2* work = spec + n;
+  const int cb = blockIdx.x;
+  const auto src = load.row(cb);
+  palt::stage_twiddles(stw, tw, n, 1);
+  for (int t = threadIdx.x; t < n; t += blockDim.x) spec[t] = src(t);
+  palt::block_fft<1>(spec, 1, 0, n, stw, 1.0f);
+  const float scale = 1.0f / (float)n;
+  const int last = min((cb + 1) * mics, (rows + 1) / 2);
+  for (int pm = cb * mics + blockIdx.y; pm < last; pm += gridDim.y) {
+    const int ra = 2 * pm;
+    const bool two = ra + 1 < rows;
+    const int oa = (ra / mics) & 1;
+    const int ob = ((ra + 1) / mics) & 1;
+    const float* ta = tau + (size_t)ra * paths;
+    const float* ga = gain + (size_t)ra * paths;
+    for (int q = threadIdx.x; q <= (n >> 1); q += blockDim.x) {
+      const float2 zq = spec[q];
+      const float2 zm = spec[(n - q) & (n - 1)];
+      const float2 ya = cmul(split_bin(zq, zm, oa),
+                             mic_response(ta, ga, paths, q, n));
+      float2 yb = make_float2(0.0f, 0.0f);
+      if (two)
+        yb = cmul(split_bin(zq, zm, ob),
+                  mic_response(ta + paths, ga + paths, paths, q, n));
+      store_packed(work, q, n, ya, yb);
+    }
+    palt::block_fft<1>(work, 1, 0, n, stw, -1.0f);
+    float peak[2] = {0.0f, 0.0f};
+    for (int t = threadIdx.x; t < out_len; t += blockDim.x) {
+      const float2 v = work[t];
+      const float f = fade[t];
+      const float2 y = make_float2(v.x * scale * f, v.y * scale * f);
+      work[t] = y;
+      peak[0] = fmaxf(peak[0], fabsf(y.x));
+      peak[1] = fmaxf(peak[1], fabsf(y.y));
+    }
+    float* o = reinterpret_cast<float*>(work);
+    const int sa = ra / mics;
+    const int sb = (ra + 1) / mics;
+    if (two) {
+      const int scene[2] = {sa, sb};
+      const int mic[2] = {ra - sa * mics, ra + 1 - sb * mics};
+      finish_rows(o, 2, out_len, peak, finalize, snr_db, seeds, scene, mic,
+                  red);
+    } else {
+      float peak_a[1] = {peak[0]};
+      const int scene[1] = {sa};
+      const int mic[1] = {ra - sa * mics};
+      finish_rows(o, 2, out_len, peak_a, finalize, snr_db, seeds, scene, mic,
+                  red);
+    }
+    // Each thread writes the samples it finished.
+    if (packed != nullptr) {
+      float2* zc = packed + (size_t)pm * n;
+      for (int t = threadIdx.x; t < n; t += blockDim.x) {
+        const float2 v = work[t];
+        zc[t] = t < out_len ? make_float2(v.x, two ? v.y : 0.0f)
+                            : make_float2(0.0f, 0.0f);
+      }
+    } else {
+      float* oa_row = out + (size_t)ra * out_len;
+      for (int t = threadIdx.x; t < out_len; t += blockDim.x) {
+        const float2 v = work[t];
+        oa_row[t] = v.x;
+        if (two) oa_row[out_len + t] = v.y;
+      }
+    }
+    __syncthreads();  // the next mic row's mixes rewrite work
+  }
+}
+
+// `render_block` over `scenes` scenes: base rows (scenes, len) -> out
+// (scenes * mics, out_len), or the packed rows (ceil(scenes * mics / 2),
+// n) of `packed` where it is not null.
+cudaError_t render_block_launch(const float* base, int scenes, int len,
+                                const float* tau, const float* gain, int mics,
+                                int paths, int n, int out_len,
+                                const float* fade, int finalize,
+                                const float* snr_db, const int* seeds,
+                                const float2* tw, float* out, float2* packed,
+                                cudaStream_t s) {
+  const int packed_b = (scenes + 1) / 2;
+  const int threads = block_threads(n);
+  const cudaError_t err = palt::allow_smem<render_block>();
+  if (err != cudaSuccess) return err;
+  render_block<<<dim3(packed_b, row_groups(packed_b, threads, mics)),
+                 threads, (n / 2 + 2 * n) * (int)sizeof(float2), s>>>(
+      RowLoad{base, scenes, len}, tau, gain, scenes * mics, mics, paths, n,
+      out_len, fade, finalize, snr_db, seeds, tw, out, packed);
+  return cudaGetLastError();
+}
+
+// `window_block` over the mic rows given by load (rows scene * mics + mic)
+// of `scenes` scenes -> win / stats.
+template <class Load>
+cudaError_t window_block_launch(Load load, int scenes, int mics,
+                                const int* pairs_i, const int* pairs_j,
+                                int num_pairs, const float* band, float eps,
+                                int wq, int n, const float2* tw, float* win,
+                                float* stats, cudaStream_t s) {
+  const int couples = (num_pairs + 1) / 2;
+  const int threads = block_threads(n);
+  const int smem = (n / 2 + ((mics + 1) / 2 + 1) * n) * (int)sizeof(float2);
+  const dim3 grid(scenes, row_groups(scenes, threads, couples));
+  const cudaError_t err = palt::allow_smem<window_block<Load>>();
+  if (err != cudaSuccess) return err;
+  window_block<Load><<<grid, threads, smem, s>>>(
+      load, mics, pairs_i, pairs_j, num_pairs, band, eps, n, tw, wq * 128,
+      win, stats);
+  return cudaGetLastError();
+}
 
 // K1 on the split (n1 > 1), through zm (ceil(scenes * mics / 2), n) and zc
 // (scenes * couples, n).
@@ -2058,9 +2369,10 @@ int palt_gcc_all_pairs(const float* x, int scenes, int mics, int len, int n,
 }
 
 // K2: x (scenes, mics, len) -> win (scenes, num_pairs, 2*wq*128) lag-centred
-// correlation windows and stats (scenes, num_pairs, 3).  n1 > 1: the split
-// n = n1 * n2 (`gcc_split`) through spec0 and c0, with keys, count and
-// part; n1 = 0: the radix-2 passes through spec0 / spec1 and c0 / c1.
+// correlation windows and stats (scenes, num_pairs, 3).  n1 = 1: one block
+// a scene (`window_block`), no buffer; n1 > 1: the split n = n1 * n2
+// (`gcc_split`) through spec0 and c0, with keys, count and part; n1 = 0:
+// the radix-2 passes through spec0 / spec1 and c0 / c1.
 int palt_gcc_windowed(const float* x, int scenes, int mics, int len, int n,
                       int n1, const int* pairs_i, const int* pairs_j,
                       int num_pairs, const float* band, float eps, int wq,
@@ -2070,6 +2382,10 @@ int palt_gcc_windowed(const float* x, int scenes, int mics, int len, int n,
                       float* stats, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int rows = scenes * mics;
+  if (n1 == 1)
+    return (int)window_block_launch(RowLoad{x, rows, len}, scenes, mics,
+                                    pairs_i, pairs_j, num_pairs, band, eps,
+                                    wq, n, tw, win, stats, s);
   if (n1 > 1)
     return (int)gcc_split(RowLoad{x, rows, len}, scenes, mics, pairs_i,
                           pairs_j, num_pairs, band, eps, wq, n, n1, tw, spec0,
@@ -2188,9 +2504,10 @@ int palt_whitened_corr(const float2* a, const float2* b, int rows, int n,
 // linear gain -> out (scenes, mics, out_len): circular multipath render at
 // length n, scaled by 1/n and fade, optionally finalized per mic, and with
 // measurement noise at snr_db (scenes,) from seeds (scenes, 2) unless
-// snr_db is NULL.  n1 > 1: the render on the split (`render_split`)
-// through zb0 and z0; n1 = 0: the radix-2 passes through zb0 / zb1 and
-// z0 / z1.
+// snr_db is NULL.  n1 = 1: one block a packed base row (`render_block`),
+// no buffer; n1 > 1: the render on the split (`render_split`) through zb0
+// and z0, then `render_finalize`; n1 = 0: the radix-2 passes through zb0 /
+// zb1 and z0 / z1, then `render_finalize`.
 int palt_delay_sum(const float* base, int scenes, int len, const float* tau,
                    const float* gain, int mics, int paths, int n, int n1,
                    int out_len, const float* fade, int finalize,
@@ -2198,6 +2515,10 @@ int palt_delay_sum(const float* base, int scenes, int len, const float* tau,
                    float2* zb0, float2* zb1, float2* z0, float2* z1,
                    float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (n1 == 1)
+    return (int)render_block_launch(base, scenes, len, tau, gain, mics,
+                                    paths, n, out_len, fade, finalize,
+                                    snr_db, seeds, tw, out, nullptr, s);
   float2* sig = z0;
   if (n1 > 1) {
     const cudaError_t err = render_split(base, scenes, len, tau, gain, mics,
@@ -2216,11 +2537,12 @@ int palt_delay_sum(const float* base, int scenes, int len, const float* tau,
 }
 
 // K5: the whole scene.  K3's render with finalize (and noise) for every
-// scene, each finished signal written in place as the packed forward input
-// of K2's GCC, then K2's GCC stage.  Outputs as K2.  Each stage on the
-// split or the passes as K3 (n1r) and K2 (n1g) would run it, through the
-// same buffers; a GCC stage on the split transforms the finished signals
-// in place.
+// scene, each finished signal written as the packed forward input of K2's
+// GCC, then K2's GCC stage.  Outputs as K2.  Each stage in one block, on
+// the split or on the passes as K3 (n1r) and K2 (n1g) would run it,
+// through the same buffers: at n <= 4096 `render_block` packs the
+// finished signals into z0 and `window_block` reads them there (two
+// launches); a GCC stage on the split transforms them in place.
 int palt_scene_windowed(const float* base, int scenes, int len,
                         const float* tau, const float* gain, int mics,
                         int paths, int n, int n1r, int n1g, int out_len,
@@ -2235,19 +2557,31 @@ int palt_scene_windowed(const float* base, int scenes, int len,
   cudaStream_t s = (cudaStream_t)stream;
   const int rows = scenes * mics;
   float2* sig = z0;
-  if (n1r > 1) {
-    const cudaError_t err = render_split(base, scenes, len, tau, gain, mics,
-                                         paths, n, n1r, tw, zb0, z0, s);
+  if (n1r == 1) {
+    const cudaError_t err = render_block_launch(
+        base, scenes, len, tau, gain, mics, paths, n, out_len, fade, 1,
+        snr_db, seeds, tw, nullptr, z0, s);
     if (err != cudaSuccess) return (int)err;
   } else {
-    sig = render_stage(base, scenes, len, tau, gain, mics, paths, n, tw, zb0,
-                       zb1, z0, z1, s);
+    if (n1r > 1) {
+      const cudaError_t err = render_split(base, scenes, len, tau, gain,
+                                           mics, paths, n, n1r, tw, zb0, z0,
+                                           s);
+      if (err != cudaSuccess) return (int)err;
+    } else {
+      sig = render_stage(base, scenes, len, tau, gain, mics, paths, n, tw,
+                         zb0, zb1, z0, z1, s);
+      PALT_CHECK();
+    }
+    render_finalize<<<rows, kRowThreads, 0, s>>>(
+        sig, n, mics, out_len, fade, 1.0f / (float)n, 1, snr_db, seeds,
+        nullptr, 1);
     PALT_CHECK();
   }
-  render_finalize<<<rows, kRowThreads, 0, s>>>(
-      sig, n, mics, out_len, fade, 1.0f / (float)n, 1, snr_db, seeds,
-      nullptr, 1);
-  PALT_CHECK();
+  if (n1g == 1)
+    return (int)window_block_launch(PackedLoad{sig, rows, n}, scenes, mics,
+                                    pairs_i, pairs_j, num_pairs, band, eps,
+                                    wq, n, tw, win, stats, s);
   if (n1g > 1)
     return (int)gcc_split(PackedLoad{sig, rows, n}, scenes, mics, pairs_i,
                           pairs_j, num_pairs, band, eps, wq, n, n1g, tw, sig,

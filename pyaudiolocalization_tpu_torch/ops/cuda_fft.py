@@ -10,11 +10,11 @@ wrapper               replaces                               bound on an H100
 fft_real              bfly_fft_real (:685)                   memory: 2 launches*
 whitened_corr         bfly_whitened_corr (:707)              memory: 2 launches
 gcc_all_pairs         bfly_gcc_all_pairs (:922)              memory: 3 launches
-gcc_windowed          bfly_gcc_windowed (:1095)              memory: 3 launches
+gcc_windowed          bfly_gcc_windowed (:1095)              memory: 1 or 3 launches
 bootstrap_peaks       bfly_bootstrap_peaks (:1227)           memory: 3 launches
 noise_bootstrap_peaks bfly_noise_bootstrap_peaks (:1326)     memory: 3 launches
-scene_windowed        bfly_scene_windowed (:1600)            memory: 7 launches
-delay_sum             bfly_delay_sum (:1851)                 memory: 4 launches
+scene_windowed        bfly_scene_windowed (:1600)            memory: 2 or 7 launches
+delay_sum             bfly_delay_sum (:1851)                 memory: 1 or 4 launches
 whiten                pallas_kernels.phat_whiten_planes (:34) memory: 16 B/bin
 ===================== ====================================== ==================
 
@@ -37,14 +37,15 @@ bootstrap, the render and the GCCs run it forward and back in three, the
 middle launch holding rows for both directions; K9, whose input is
 spectra, in two), so a transform reads and writes each point once per
 launch (16 bytes a complex point) and is bound by device memory at
-that.  Up to 4,096 points the bootstraps, K9 and the all-pairs GCC (up to
-10 mics) hold a whole row in one block.  The others run radix-2 Stockham
+that.  Up to 4,096 points the bootstraps, K9, the render (a packed base
+row a block) and the all-pairs and windowed GCCs (a scene a block, up to
+10 mics at 4,096) hold a whole row in one block, so K3 and K2 are one
+launch there and K5 two.  The others run radix-2 Stockham
 passes over rows in device memory, one launch and 16 bytes a point per
 pass, about 16·log2(nfft) bytes per point and transform, and fuse their
-first or last pass into a prologue or epilogue: the render,
-windowed-GCC and scene kernels up to 4096 points, every stage where its
-strips do not fit (``scene_stages``, ``gcc_schedule``), and every kernel
-above 2^20.  The design keeps the rest of the work out of device memory where
+first or last pass into a prologue or epilogue: every stage where neither
+one block nor its split's strips fit (``scene_stages``, ``gcc_schedule``),
+and every kernel above 2^20.  The design keeps the rest of the work out of device memory where
 the TPU kernels did: real rows are packed two to a complex transform, the
 whitening / ramp synthesis runs in one pass over the spectra, two real
 results share each inverse, and the bootstrap's maxima and the windowed
@@ -353,17 +354,31 @@ def _row_pass_smem(n1: int, n2: int, strips: int) -> int:
     return 8 * (n2 // 2 + n1 + n2 + strips * ROW_STRIP * (n2 + 1))
 
 
+def _gcc_block_smem(nfft: int, mics: int) -> int:
+    """Bytes of shared memory of a scene's GCC in one block (``gcc_block``,
+    ``window_block``): the nfft/2 twiddles, the (mics + 1) // 2 packed mic
+    rows a scene's mics can span and one spare row."""
+    return 8 * (nfft // 2 + ((mics + 1) // 2 + 1) * nfft)
+
+
 def scene_stages(nfft: int, mics: int):
-    """(n1 of the render stage, n1 of the windowed-GCC stage) of K3, K2 and
-    K5 for ``mics`` mics a scene at nfft: the four-step split nfft = n1 *
-    n2 of ``fft_real_split`` where 4096 < nfft <= 2^20 and the row pass's
-    strips fit one block's shared memory (``SMEM_OPTIN``), else 0, the
-    radix-2 passes.  The render's row pass holds two strips (the base rows
-    and one output row at a time), the GCC's one strip for each packed mic
-    row a scene's mics can span ((mics + 1) // 2) and one for the output.
-    K5 runs each stage as K3 and K2 run it, so that the fused and the split
-    paths compute the same bits."""
-    if not FFT_REAL_ONE_BLOCK < nfft <= FFT_REAL_MAX:
+    """(n1 of the render stage, n1 of the GCC stage) for ``mics`` mics a
+    scene at nfft: the schedule of K3's render and of K2's windowed GCC
+    (K5 runs each stage as K3 and K2 run it, so that the fused and the
+    split paths compute the same bits) and, for the GCC, of K1 too
+    (``gcc_schedule``).  Up to ``FFT_REAL_ONE_BLOCK`` (4,096): 1, one
+    block, for the render always (``render_block``: the twiddles, a packed
+    base row and one work row, 80 KB at 4,096) and for the GCC where a
+    scene's packed mic rows fit (``_gcc_block_smem``: up to 10 mics at
+    4,096, 24 at 2,048).  Up to 2^20: the four-step split nfft = n1 * n2
+    of ``fft_real_split`` where the row pass's strips fit one block's
+    shared memory (``SMEM_OPTIN``); the render's row pass holds two strips
+    (the base rows and one output row at a time), the GCC's one strip for
+    each packed mic row a scene's mics can span ((mics + 1) // 2) and one
+    for the output.  Else 0, the radix-2 passes."""
+    if nfft <= FFT_REAL_ONE_BLOCK:
+        return 1, (1 if _gcc_block_smem(nfft, mics) <= SMEM_OPTIN else 0)
+    if nfft > FFT_REAL_MAX:
         return 0, 0
     n1, n2 = fft_real_split(nfft)
     render = n1 if _row_pass_smem(n1, n2, 2) <= SMEM_OPTIN else 0
@@ -373,17 +388,11 @@ def scene_stages(nfft: int, mics: int):
 
 
 def gcc_schedule(nfft: int, mics: int) -> int:
-    """n1 of K1's schedule for ``mics`` mics a scene at nfft: 1, one block
-    a scene (``gcc_block``), where nfft <= ``FFT_REAL_ONE_BLOCK`` and the
-    block's shared memory holds the n/2 twiddles, the (mics + 1) // 2
-    packed mic rows a scene's mics can span and one spare row (at 4,096
-    points up to 10 mics); above 4,096 the n1 of K2's GCC stage
-    (``scene_stages``), so K1 and K2 take one schedule a shape: the
-    four-step split where its row pass's strips fit.  Else 0, the radix-2
-    passes."""
-    if nfft <= FFT_REAL_ONE_BLOCK:
-        smem = 8 * (nfft // 2 + ((mics + 1) // 2 + 1) * nfft)
-        return 1 if smem <= SMEM_OPTIN else 0
+    """n1 of K1's schedule for ``mics`` mics a scene at nfft: the GCC
+    stage's of ``scene_stages``, so K1 and K2 take one schedule a shape —
+    1, one block a scene (``gcc_block``), up to 4,096 where the scene's
+    rows fit; the four-step split where its row pass's strips fit; else 0,
+    the radix-2 passes."""
     return scene_stages(nfft, mics)[1]
 
 
@@ -396,8 +405,9 @@ def corr_schedule(nfft: int) -> int:
 
 
 def _copies(n1: int) -> int:
-    """Copies of a scratch buffer that K1's and K9's schedule n1 uses: none
-    in one block, one on the split, two (ping-pong) on the passes."""
+    """Copies of a scratch buffer that a schedule n1 of K1, K2, K3 or K9
+    uses: none in one block, one on the split, two (ping-pong) on the
+    passes."""
     return 0 if n1 == 1 else (1 if n1 else 2)
 
 
@@ -405,8 +415,8 @@ def _window_scratch(rows: int, nfft: int, n1: int, device):
     """``window_cols``' partials for ``rows`` packed cross rows on the
     split (n1 > 1): the (max, index) keys (rows * 2, int64), the block
     counters (rows, int32) and the per-block sums of |corr| (rows * 2 *
-    n2 / ROW_STRIP, float32); Nones on the passes."""
-    if not n1:
+    n2 / ROW_STRIP, float32); Nones in one block and on the passes."""
+    if n1 <= 1:
         return None, None, None
     blocks = nfft // n1 // ROW_STRIP
     return (torch.empty(2 * rows, dtype=torch.int64, device=device),
@@ -693,18 +703,24 @@ def gcc_windowed(signals: torch.Tensor, pairs_i: Sequence[int],
     transform), the whitened, band-masked cross-spectra of two pairs a
     packed row, the packed inverse, and the scale, the window write and
     the statistics in the inverse's last step, so the (..., P, nfft)
-    correlation is never written.  Where ``scene_stages`` gives a split
-    (8,192 <= nfft <= 2^19; up to 10 mics a scene at 65,536), three
-    launches on K4b's four-step schedule: K4a's column pass; a row pass
-    that holds a scene's strips of every packed mic row and, couple by
-    couple, forms the cross-spectra and runs the inverse row DFTs; a
-    column pass whose inverse column DFTs end in the window and the
-    statistics (per-block partials summed in block order by the row's
-    last block, the argmax by a 64-bit atomic maximum that keeps the
-    smallest index on ties).  Elsewhere the radix-2 passes, the last one
-    fused with the window and the statistics.  Bound by device memory.  A
-    batch whose grids would exceed 65,535 rows launches over scene chunks
-    (``scene_chunk``)."""
+    correlation is never written.  By shape (``scene_stages``, K1's rule):
+    up to 4,096 points where a scene's packed mic rows fit (10 mics at
+    4,096, 24 at 2,048), one launch, a block a scene (``window_block``:
+    the rows' transforms in shared memory, then couple by couple the
+    cross-spectra, the inverse and the window with the statistics by
+    block reductions in a fixed order, ties going to the smallest index),
+    no scratch; where it gives a split (8,192 <= nfft <= 2^19; up to 10
+    mics a scene at 65,536), three launches on K4b's four-step schedule:
+    K4a's column pass; a row pass that holds a scene's strips of every
+    packed mic row and, couple by couple, forms the cross-spectra and runs
+    the inverse row DFTs; a column pass whose inverse column DFTs end in
+    the window and the statistics (per-block partials summed in block
+    order by the row's last block, the argmax by a 64-bit atomic maximum
+    that keeps the smallest index on ties).  Elsewhere the radix-2 passes,
+    the last one fused with the window and the statistics.  Bound by
+    device memory.  A batch whose grids would exceed 65,535 rows launches
+    over scene chunks (``scene_chunk``), in one block too, so that K2
+    chunks as K5 does."""
     _check_window("gcc_windowed", nfft, wq)
     if _use_plain(signals, mask):
         return gcc_windowed_plain(signals, pairs_i, pairs_j, nfft, wq, mask,
@@ -731,7 +747,7 @@ def gcc_windowed(signals: torch.Tensor, pairs_i: Sequence[int],
                         device=dev)
     chunk = scene_chunk(scenes, mics, num_pairs)
     n1 = scene_stages(nfft, mics)[1]
-    copies = 1 if n1 else 2
+    copies = _copies(n1)
     spec0, spec1, _spec = _buffers(copies, (chunk * mics + 1) // 2, nfft,
                                    dev)
     cpl0, cpl1, _cpl = _buffers(copies, chunk * couples, nfft, dev)
@@ -964,15 +980,19 @@ def delay_sum(base: torch.Tensor, tau: torch.Tensor, gains: torch.Tensor,
     (two scenes per packed row), per-mic transfer functions synthesized on
     the fly from (tau, gain) with the phase reduced by whole turns and a
     real Nyquist bin (cos(pi*tau)), two mic rows per packed inverse, and
-    one block per mic row for scale, fade, trim, finalize and noise.  One
-    call covers every scene.  Where ``scene_stages`` gives a split
-    (8,192 <= nfft <= 2^19), four launches on K4b's four-step schedule:
-    K4a's column pass over the bases; a row pass that holds a base strip,
-    mixes each of its mic rows in turn and runs their inverse row DFTs;
-    the inverse column DFTs in place; the finalize.  Elsewhere the radix-2
-    passes.  Bound by device memory.  A batch whose grids would exceed
-    65,535 rows launches over the scene chunks K2 and K5 take for all
-    pairs of the same mics (``scene_chunk``)."""
+    the scale, fade, trim, finalize and noise of each mic row.  One call
+    covers every scene.  Up to 4,096 points one launch (``render_block``):
+    a block a packed base row (two scenes) transforms it once in shared
+    memory, then mixes, inverts and finishes its packed mic rows one at a
+    time in one work row, no scratch.  Where ``scene_stages`` gives a
+    split (8,192 <= nfft <= 2^20), four launches on K4b's four-step
+    schedule: K4a's column pass over the bases; a row pass that holds a
+    base strip, mixes each of its mic rows in turn and runs their inverse
+    row DFTs; the inverse column DFTs in place; the finalize, a block a
+    mic row.  Above, the radix-2 passes.  Bound by device memory.  A batch
+    whose grids would exceed 65,535 rows launches over the scene chunks K2
+    and K5 take for all pairs of the same mics (``scene_chunk``), in one
+    block too."""
     _check_noise_pair("delay_sum", snr_db, seeds)
     if _use_plain(base, tau, gains, fade):
         return delay_sum_plain(base, tau, gains, nfft, out_samples, fade,
@@ -990,7 +1010,7 @@ def delay_sum(base: torch.Tensor, tau: torch.Tensor, gains: torch.Tensor,
                       device=dev)
     chunk = scene_chunk(scenes, mics)
     n1 = scene_stages(nfft, mics)[0]
-    copies = 1 if n1 else 2
+    copies = _copies(n1)
     zb0, zb1, _zb = _buffers(copies, (chunk + 1) // 2, nfft, dev)
     zm0, zm1, _zm = _buffers(copies, (chunk * mics + 1) // 2, nfft, dev)
     tw = _twiddles(nfft, str(dev))
@@ -1036,12 +1056,13 @@ def scene_windowed(base: torch.Tensor, tau: torch.Tensor,
     one scene in VMEM; one scene's 4 x 65,536 complex spectra (2 MB)
     exceed a block's 227 KB of shared memory, so here one host entry runs
     K3's render stage and K2's GCC stage for all scenes back to back on
-    one stream, each on the schedule ``scene_stages`` gives K3 and K2 (at
-    65,536: three launches each on the four-step split, with the finalize
-    between, seven in all), the intermediates in device memory and L2.
-    The finalize / noise block writes each finished signal in place as
-    the packed forward input of the GCC stage (zero-padded to nfft), whose
-    column pass transforms it in place.  The same stage code as
+    one stream, each on the schedule ``scene_stages`` gives K3 and K2 (up
+    to 4,096 points ``render_block`` then ``window_block``, two launches;
+    at 65,536 three launches each on the four-step split, with the
+    finalize between, seven in all), the intermediates in device memory
+    and L2.  The render writes each finished signal as the packed forward
+    input of the GCC stage (zero-padded to nfft), which the GCC's block or
+    column pass reads (on the split in place).  The same stage code as
     ``delay_sum`` then ``gcc_windowed``, so the two paths agree to the bit
     on the same inputs; a batch whose grids would exceed 65,535 rows
     launches over the scene chunks those two take (``scene_chunk``).
@@ -1075,11 +1096,13 @@ def scene_windowed(base: torch.Tensor, tau: torch.Tensor,
                         device=dev)
     chunk = scene_chunk(scenes, mics, num_pairs)
     n1r, n1g = scene_stages(nfft, mics)
-    # One copy of a buffer where the stages that use it run on the split.
-    zb0, zb1, _zb = _buffers(1 if n1r else 2, (chunk + 1) // 2, nfft, dev)
+    # The base and cross buffers as K3 and K2 take them (none in one
+    # block); the packed mic rows, which hold the finished signals between
+    # the stages, once where neither stage runs the passes.
+    zb0, zb1, _zb = _buffers(_copies(n1r), (chunk + 1) // 2, nfft, dev)
     zm0, zm1, _zm = _buffers(1 if n1r and n1g else 2,
                              (chunk * mics + 1) // 2, nfft, dev)
-    cpl0, cpl1, _cpl = _buffers(1 if n1g else 2, chunk * couples, nfft, dev)
+    cpl0, cpl1, _cpl = _buffers(_copies(n1g), chunk * couples, nfft, dev)
     keys, count, part = _window_scratch(chunk * couples, nfft, n1g, dev)
     tw = _twiddles(nfft, str(dev))
     base_s, tau_s, gains_s, snr_s, seeds_s, win_s, stats_s = _scene_views(

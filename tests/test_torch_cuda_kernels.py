@@ -869,6 +869,120 @@ def test_scene_kernels_across_scene_chunks(cuda, monkeypatch, m, paths,
     assert all(torch.equal(a, b) for a, b in zip(fused, whole[2]))
 
 
+# One block up to 4,096 points: (scenes, mics, paths, padded length,
+# samples, nfft, wq): one scene at 512 with 3 mics, 7 scenes of 5, the
+# short sweep's 512 x 4 at 2,048, the trio's 8 mics at 4,096, 9 mics (the
+# GCC block's widest span but one), and the GCC on the passes where a
+# scene's rows do not fit (11 mics at 4,096, 25 at 2,048).
+ONE_BLOCK = [(1, 3, 2, 500, 450, 512, 2), (7, 5, 3, 1000, 900, 1024, 4),
+             (512, 4, 1, 1694, 1600, 2048, 3), (64, 8, 1, 4094, 4000, 4096, 6),
+             (3, 9, 2, 3500, 3000, 4096, 2), (2, 11, 1, 3500, 3000, 4096, 2),
+             (3, 25, 1, 1800, 1600, 2048, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenes,m,paths,total,out,nfft,wq", ONE_BLOCK)
+def test_scene_kernels_in_one_block_match_plain(cuda, scenes, m, paths,
+                                                total, out, nfft, wq):
+    """K3 (``render_block``), K2 (``window_block``) and K5 (the two in
+    turn) at nfft <= 4,096, odd mic counts, one scene and many: each one
+    launch of its wrapper, against its twin within the A/B tool's
+    ``SCENE_TOL`` (2e-5, 1e-6, 1e-5) with equal argmaxes, and K5 equal to
+    K3 then K2 to the bit (the GCC on the passes where it does not fit)."""
+    n1r, n1g = cf.scene_stages(nfft, m)
+    assert n1r == 1 and n1g == (1 if m <= (24 if nfft == 2048 else 10)
+                                else 0)
+    base, tau, gains, snr, seeds, fade = _scene_inputs(cuda, scenes, m,
+                                                       paths, total, out)
+    pi, pj = _pairs(m)
+    mask = cf.band_mask(nfft, (300.0, 3400.0), 16000.0, device=cuda)
+    cf.reset_launches()
+    sigs = cf.delay_sum(base, tau, gains, nfft, out, fade, True, snr, seeds)
+    win, stats = cf.gcc_windowed(sigs, pi, pj, nfft, wq, mask)
+    fused = cf.scene_windowed(base, tau, gains, pi, pj, nfft, out, wq, fade,
+                              mask, snr, seeds)
+    assert (cf.LAUNCHES["delay_sum"], cf.LAUNCHES["gcc_windowed"],
+            cf.LAUNCHES["scene_windowed"]) == (1, 1, 1)
+    want_sigs = cf.delay_sum_plain(base, tau, gains, nfft, out, fade, True,
+                                   snr, seeds)
+    w2, s2 = cf.gcc_windowed_plain(sigs, pi, pj, nfft, wq, mask)
+    w5, s5 = cf.scene_windowed_plain(base, tau, gains, pi, pj, nfft, out, wq,
+                                     fade, mask, snr, seeds)
+    torch.cuda.synchronize()
+    assert float((sigs - want_sigs).abs().max()) < 2e-5
+    assert float((win - w2).abs().max()) < 1e-6
+    assert torch.equal(stats[..., 2], s2[..., 2])
+    assert float((stats[..., :2] - s2[..., :2]).abs().max()) < 1e-6
+    assert float((fused[0] - w5).abs().max()) < 1e-5
+    assert torch.equal(fused[0], win) and torch.equal(fused[1], stats)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("finalize,noise", [(True, False), (False, True),
+                                            (False, False)])
+@pytest.mark.parametrize("scenes,m,paths,total,nfft", [
+    (3, 3, 2, 1000, 1024), (1, 4, 22, 4094, 4096), (132, 4, 1, 788, 1024)])
+def test_render_block_finish_options(cuda, finalize, noise, scenes, m,
+                                     paths, total, nfft):
+    """K3 in one block with the finalize or the noise off (the moving
+    render's frames take neither, at out == the padded length): against the
+    twin, raw renders relative to their peak."""
+    base, tau, gains, snr, seeds, fade = _scene_inputs(cuda, scenes, m,
+                                                       paths, total, total)
+    nz = (snr, seeds) if noise else (None, None)
+    got = cf.delay_sum(base, tau, gains, nfft, total, fade, finalize, *nz)
+    want = cf.delay_sum_plain(base, tau, gains, nfft, total, fade, finalize,
+                              *nz)
+    torch.cuda.synchronize()
+    scale = 1.0 if finalize else float(want.abs().max())
+    assert float((got - want).abs().max()) < 2e-5 * max(scale, 1.0)
+
+
+@pytest.mark.cuda
+def test_one_block_device_kernels_per_call(cuda, tmp_path, monkeypatch):
+    """At 4,096 points K3 runs one device kernel (``render_block``), K2 one
+    (``window_block`` over its rows) and K5 two (``render_block``, then
+    ``window_block`` over the packed finished signals); with 11 mics K5's
+    GCC stage runs the radix-2 passes after the same ``render_block``; a
+    chunked call runs its kernels once a chunk."""
+    base, tau, gains, snr, sd, fade = _scene_inputs(cuda, 64, 4, 1, 4094,
+                                                    4000)
+    pi, pj = _pairs(4)
+    mask = cf.band_mask(4096, (300.0, 3400.0), 16000.0, device=cuda)
+    names = _device_kernels(
+        lambda: cf.delay_sum(base, tau, gains, 4096, 4000, fade, True, snr,
+                             sd), tmp_path / "k3.json")
+    assert len(names) == 1 and "render_block" in names[0], names
+    sigs = cf.delay_sum(base, tau, gains, 4096, 4000, fade, True, snr, sd)
+    names = _device_kernels(
+        lambda: cf.gcc_windowed(sigs, pi, pj, 4096, 6, mask),
+        tmp_path / "k2.json")
+    assert len(names) == 1, names
+    assert "window_block" in names[0] and "RowLoad" in names[0], names
+    names = _device_kernels(
+        lambda: cf.scene_windowed(base, tau, gains, pi, pj, 4096, 4000, 6,
+                                  fade, mask, snr, sd), tmp_path / "k5.json")
+    assert len(names) == 2, names
+    assert "render_block" in names[0] and "window_block" in names[1]
+    assert "PackedLoad" in names[1], names
+    base, tau, gains, snr, sd, fade = _scene_inputs(cuda, 2, 11, 1, 4094,
+                                                    4000)
+    qi, qj = _pairs(11)
+    names = _device_kernels(
+        lambda: cf.scene_windowed(base, tau, gains, qi, qj, 4096, 4000, 2,
+                                  fade, mask, snr, sd), tmp_path / "k5p.json")
+    assert "render_block" in names[0] and "last_pass_window" in names[-1]
+    assert len(names) == 1 + 12 + 1 + 11 + 1, names
+    monkeypatch.setattr(cf, "_MAX_GRID_Y", 7)
+    base, tau, gains, snr, sd, fade = _scene_inputs(cuda, 5, 4, 1, 1800,
+                                                    1500)
+    mask = cf.band_mask(2048, (300.0, 3400.0), 16000.0, device=cuda)
+    names = _device_kernels(
+        lambda: cf.scene_windowed(base, tau, gains, pi, pj, 2048, 1500, 3,
+                                  fade, mask, snr, sd), tmp_path / "k5c.json")
+    assert len(names) == 6, names     # chunks of 2, 2 and 1 scenes
+
+
 @pytest.mark.cuda
 def test_sweep_across_the_chunk_boundary_on_the_card(cuda):
     """21,846 scenes at 4 mics (nfft 512): one past the 65,535 / 3 couples

@@ -34,7 +34,15 @@ indices so that a wrong map shows before the card sees it:
   (``gcc_block`` with a scene's rows packed across scenes and couples
   shared over groups, ``corr_block``) against ``gcc_all_pairs_plain`` and
   ``whitened_corr_plain``, and the rules that pick each schedule
-  (``gcc_schedule``, ``corr_schedule``).
+  (``gcc_schedule``, ``corr_schedule``);
+- K3, K2 and K5 in one block up to 4,096 points: ``render_block`` (a
+  packed base row's two scenes, their packed mic rows mixed, inverted
+  and finished one at a time, the noise by its Philox key map) against
+  ``delay_sum_plain``, ``window_block`` (``gcc_block``'s body with the
+  lag window and the statistics by the kernel's block reductions, ties to
+  the smallest index) against ``gcc_windowed_plain``, K5 as the one over
+  the other's packed rows, and the rule that picks the schedule of all
+  three (``scene_stages``).
 """
 
 import numpy as np
@@ -833,16 +841,25 @@ def test_window_stats_keep_the_smallest_tied_index(n):
 
 
 @pytest.mark.parametrize("n,mics,want", [
-    (4096, 4, (0, 0)), (8192, 3, (128, 128)), (65536, 4, (256, 256)),
+    (4096, 4, (1, 1)), (512, 4, (1, 1)), (2048, 24, (1, 1)),
+    (2048, 25, (1, 0)), (2048, 26, (1, 0)), (4096, 10, (1, 1)),
+    (4096, 11, (1, 0)), (8192, 3, (128, 128)), (65536, 4, (256, 256)),
     (65536, 10, (256, 256)), (65536, 11, (256, 0)), (1 << 18, 4, (512, 512)),
     (1 << 18, 8, (512, 0)), (1 << 19, 4, (1024, 1024)), (1 << 20, 2, (0, 0))])
 def test_scene_stages_rule(n, mics, want):
-    """One rule for K3, K2 and K5 (``scene_stages``): K4a's split from
-    8,192 on, each stage where its row pass's strips (the render's two,
-    the GCC's (mics + 1) // 2 + 1) fit one block's shared memory; the
-    radix-2 passes up to 4,096 and where they do not fit."""
+    """One rule for K3, K2 and K5 (``scene_stages``): up to 4,096 one block,
+    for the render always (its twiddles, base row and work row) and for
+    the GCC where a scene's packed mic rows and a spare row fit; K4a's
+    split from 8,192 on, each stage where its row pass's strips (the
+    render's two, the GCC's (mics + 1) // 2 + 1) fit one block's shared
+    memory; the radix-2 passes where neither fits."""
     got = cf.scene_stages(n, mics)
     assert got == want
+    if n <= cf.FFT_REAL_ONE_BLOCK:
+        assert got[0] == 1 and 8 * (n // 2 + 2 * n) <= cf.SMEM_OPTIN
+        smem = 8 * (n // 2 + ((mics + 1) // 2 + 1) * n)
+        assert (smem <= cf.SMEM_OPTIN) == (got[1] == 1)
+        return
     for n1, strips in zip(got, (2, (mics + 1) // 2 + 1)):
         if n1:
             assert n1 == cf.fft_real_split(n)[0]
@@ -975,20 +992,18 @@ def _store_packed(ya, yb, n):
     return row
 
 
-def gcc_block_model(sig, pairs_i, pairs_j, n, mask, groups=1):
-    """``gcc_block``: block (scene, g) transforms the packed rows first ..
-    first + span - 1 (rows packed across scenes), then for couples c = g,
-    g + groups, ... forms the cross-spectra from bins q and (n - q) mod n
-    (``split_bin``), packs them (``store_packed``), inverts and writes
-    pairs 2c and 2c + 1 times 1/n -> (scenes, P, n).  Asserts that every
-    couple is written by one group."""
-    scenes, mics, length = sig.shape
-    z = _pack(sig.reshape(scenes * mics, length), n)
+def gcc_body_model(z, scenes, mics, pairs_i, pairs_j, n, mask, groups=1):
+    """``gcc_body`` over packed rows z (ceil(scenes * mics / 2), n) as its
+    loader gives them: block (scene, g) transforms the packed rows first
+    .. first + span - 1 (rows packed across scenes), then for couples c =
+    g, g + groups, ... forms the cross-spectra from bins q and (n - q) mod
+    n (``split_bin``), packs them (``store_packed``) and inverts -> yields
+    (scene, c, the unscaled packed inverse (n,)) for the epilogue.  Asserts
+    that every couple is done by one group."""
     pairs = len(pairs_i)
     couples = (pairs + 1) // 2
     q = np.arange(n // 2 + 1)
     m = (n - q) & (n - 1)
-    out = np.full((scenes, pairs, n), np.nan)
     done = np.zeros((scenes, couples), int)
     for s in range(scenes):
         row0 = s * mics
@@ -1011,11 +1026,23 @@ def gcc_block_model(sig, pairs_i, pairs_j, n, mask, groups=1):
                     yb = _whiten(bins(pairs_i[2 * c + 1]),
                                  bins(pairs_j[2 * c + 1]))
                 work = _store_packed(ya * mask, yb * mask, n)
-                inv = block_fft(work[:, None], -1.0)[:, 0] / n
-                out[s, 2 * c] = inv.real
-                if 2 * c + 1 < pairs:
-                    out[s, 2 * c + 1] = inv.imag
+                yield s, c, block_fft(work[:, None], -1.0)[:, 0]
     assert np.array_equal(done, np.ones_like(done))
+
+
+def gcc_block_model(sig, pairs_i, pairs_j, n, mask, groups=1):
+    """``gcc_block``: ``gcc_body`` over the rows of sig (scenes, mics, len)
+    packed as ``RowLoad`` gives them, with ``CorrOut``: pairs 2c and 2c + 1
+    times 1/n -> (scenes, P, n)."""
+    scenes, mics, length = sig.shape
+    z = _pack(sig.reshape(scenes * mics, length), n)
+    pairs = len(pairs_i)
+    out = np.full((scenes, pairs, n), np.nan)
+    for s, c, inv in gcc_body_model(z, scenes, mics, pairs_i, pairs_j, n,
+                                    mask, groups):
+        out[s, 2 * c] = inv.real / n
+        if 2 * c + 1 < pairs:
+            out[s, 2 * c + 1] = inv.imag / n
     assert not np.isnan(out).any()
     return out
 
@@ -1077,17 +1104,15 @@ def test_corr_block_matches_whitened_corr(n):
     (65536, 4, 256), (65536, 10, 256), (65536, 11, 0), (1 << 18, 8, 0),
     (1 << 19, 4, 1024), (1 << 20, 2, 0), (1 << 21, 4, 0)])
 def test_gcc_schedule_rule(n, mics, want):
-    """K1's schedule (``gcc_schedule``): one block up to 4,096 where the
+    """K1's schedule (``gcc_schedule``) is K2's GCC stage's
+    (``scene_stages``), one rule: one block up to 4,096 where the
     twiddles, a scene's widest span of packed rows and a spare row fit one
-    block's shared memory; above, K2's GCC stage's split (one rule, so K1
-    and K2 take one schedule a shape); else the passes."""
+    block's shared memory; above, the split; else the passes."""
     got = cf.gcc_schedule(n, mics)
-    assert got == want
+    assert got == want == cf.scene_stages(n, mics)[1]
     if n <= cf.FFT_REAL_ONE_BLOCK:
         smem = 8 * (n // 2 + ((mics + 1) // 2 + 1) * n)
         assert (smem <= cf.SMEM_OPTIN) == (got == 1)
-    else:
-        assert got == cf.scene_stages(n, mics)[1]
 
 
 @pytest.mark.parametrize("n,want", [
@@ -1100,6 +1125,277 @@ def test_corr_schedule_rule(n, want):
     assert cf.corr_schedule(n) == want
     if 1 < want:
         assert cf._row_pass_smem(want, n // want, 1) <= cf.SMEM_OPTIN
+
+
+# ---------------------------------------------------------------------------
+# K3, K2 and K5 in one block (nfft <= 4,096): render_block, window_block
+# ---------------------------------------------------------------------------
+
+def block_threads(n):
+    """``block_threads``: what block_fft needs at n (n / 16), at least two
+    warps."""
+    return max(64, -(-n // 16))
+
+
+def _render_noise(seeds, scene, mic, count):
+    """The Philox normals ``finish_rows`` adds to mic row (scene, mic):
+    key (seed word 0, seed word 1 + mic * 0x9E3779B9 mod 2^32) of the
+    scene's int32 words read as uint32, counter t < count, the first two
+    output words' top 24 bits through the Box-Muller (float32)."""
+    key = seeds.astype(np.int64) & 0xFFFFFFFF
+    k0 = torch.tensor([int(key[scene, 0])])
+    k1 = torch.tensor([(int(key[scene, 1]) + mic * noise_ops.PHILOX_W0)
+                       & 0xFFFFFFFF])
+    w0, w1 = noise_ops.philox_bits(k0, k1, torch.arange(count))
+    return noise_ops.bits_to_normal(w0 >> 8, w1 >> 8).double().numpy()
+
+
+def _finish_model(y, finalize, snr_db, seeds, scene, mic):
+    """``finish_rows`` on one scaled, faded, trimmed mic row."""
+    if finalize:
+        peak = np.abs(y).max()
+        if peak != 0:
+            y = y / peak
+        comp = np.sign(y) * np.log1p(np.abs(y) / 0.8 + 1e-8)
+        cpeak = np.abs(comp).max()
+        y = comp / cpeak if cpeak > 0 else comp
+    if snr_db is not None:
+        rms = np.sqrt(np.sum(y * y) / y.shape[0])
+        sigma = rms * np.exp(-snr_db[scene] * noise_ops.LN10_OVER_20)
+        y = y + sigma * _render_noise(seeds, scene, mic, y.shape[0])
+    return y
+
+
+def render_block_model(base, tau, gain, n, out_len, fade, finalize,
+                       snr_db=None, seeds=None, groups=1):
+    """``render_block``: block (cb, g) transforms the packed base row cb
+    (scenes 2cb and 2cb + 1), then for packed mic rows pm = cb * mics + g,
+    + groups, ... < (cb + 1) * mics mixes mic rows 2pm and 2pm + 1 from
+    their scenes' halves of that spectrum (``split_bin``, ``mic_response``),
+    packs them (``store_packed``), inverts, and finishes each half (1/n,
+    fade, trim, ``finish_rows``) -> (out (scenes, mics, out_len), packed
+    (ceil(rows / 2), n): the rows as K5 writes them, zero-padded).  Asserts
+    that each packed mic row is done once, by the block of its scenes."""
+    scenes = base.shape[0]
+    mics, paths = tau.shape[1:]
+    rows = scenes * mics
+    num_packed = (rows + 1) // 2
+    zb = _pack(base, n)
+    tau_r, gain_r = tau.reshape(rows, paths), gain.reshape(rows, paths)
+    q = np.arange(n // 2 + 1)
+    m = (n - q) & (n - 1)
+    out = np.full((rows, out_len), np.nan)
+    packed = np.full((num_packed, n), np.nan, complex)
+    done = np.zeros(num_packed, int)
+    for cb in range(zb.shape[0]):
+        spec = block_fft(zb[cb][:, None])[:, 0]
+        last = min((cb + 1) * mics, num_packed)
+        for g in range(groups):
+            for pm in range(cb * mics + g, last, groups):
+                done[pm] += 1
+                ra, rb = 2 * pm, 2 * pm + 1
+                assert ra // mics >> 1 == cb
+                assert rb >= rows or rb // mics >> 1 == cb
+                ya = _split_bin(spec[q], spec[m], (ra // mics) & 1) * \
+                    _mic_response(tau_r[ra], gain_r[ra], q, n)
+                yb = np.zeros_like(ya)
+                if rb < rows:
+                    yb = _split_bin(spec[q], spec[m], (rb // mics) & 1) * \
+                        _mic_response(tau_r[rb], gain_r[rb], q, n)
+                inv = block_fft(_store_packed(ya, yb, n)[:, None], -1.0)[:, 0]
+                for h, r in enumerate(range(ra, min(rb + 1, rows))):
+                    scene, mic = divmod(r, mics)
+                    y = (inv.imag if h else inv.real)[:out_len] / n * fade
+                    out[r] = _finish_model(y, finalize, snr_db, seeds, scene,
+                                           mic)
+                row = np.zeros(n, complex)
+                row[:out_len] = out[ra] + (1j * out[rb] if rb < rows else 0)
+                packed[pm] = row
+    assert np.array_equal(done, np.ones_like(done))
+    assert not np.isnan(out).any()
+    return out.reshape(scenes, mics, out_len), packed
+
+
+def _warp_tree(v, idx=None):
+    """``block_sum``'s (idx None) or ``block_argmax``'s shuffle tree over
+    the 32 lanes of v: lane l takes lane l ^ off's value at off = 16, 8,
+    4, 2, 1 -> lane 0's result."""
+    lanes = np.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        ov = v[lanes ^ off]
+        if idx is None:
+            v = v + ov
+            continue
+        oi = idx[lanes ^ off]
+        take = (ov > v) | ((ov == v) & (oi < idx))
+        v, idx = np.where(take, ov, v), np.where(take, oi, idx)
+    return v[0] if idx is None else (v[0], idx[0])
+
+
+def block_reduce_model(x, threads):
+    """``WindowOut``'s reductions of one row x (n,): each thread's serial
+    sum of |x| and (max, smallest index) over t = thread + k * threads
+    (-0 taken as +0), then each warp's shuffle tree and warp 0's over the
+    warps' results -> (sum, max, index)."""
+    big = np.iinfo(np.int64).max
+    sums = np.zeros(threads)
+    best = np.full(threads, -np.inf)
+    idx = np.full(threads, big)
+    for k in range(-(-x.shape[0] // threads)):
+        j = np.arange(k * threads, min((k + 1) * threads, x.shape[0]))
+        tid = j - k * threads
+        v = np.where(x[j] == 0, 0.0, x[j])
+        sums[tid] += np.abs(x[j])
+        take = (v > best[tid]) | ((v == best[tid]) & (j < idx[tid]))
+        best[tid] = np.where(take, v, best[tid])
+        idx[tid] = np.where(take, j, idx[tid])
+    warps = threads // 32
+    ws = np.zeros(32)
+    wv = np.full(32, -np.inf)
+    wi = np.full(32, big)
+    for w in range(warps):
+        lanes = slice(32 * w, 32 * w + 32)
+        ws[w] = _warp_tree(sums[lanes])
+        wv[w], wi[w] = _warp_tree(best[lanes], idx[lanes])
+    top, at = _warp_tree(wv, wi)
+    return _warp_tree(ws), top, at
+
+
+def window_block_model(z, scenes, mics, pairs_i, pairs_j, n, wq, mask,
+                       groups=1):
+    """``window_block``: ``gcc_body`` over the packed rows z (K2's rows as
+    ``RowLoad`` packs them, or K5's as ``render_block`` writes them), with
+    ``WindowOut``: each correlation times 1/n, its lags [-w, w) and its
+    statistics by ``block_reduce_model`` at ``block_threads(n)`` threads
+    -> (win (scenes, P, 2w), stats (scenes, P, 3))."""
+    pairs = len(pairs_i)
+    w = wq * 128
+    t = np.arange(n)
+    at = np.where(t < w, w + t, np.where(t >= n - w, t - (n - w), -1))
+    win = np.full((scenes, pairs, 2 * w), np.nan)
+    stats = np.full((scenes, pairs, 3), np.nan)
+    for s, c, inv in gcc_body_model(z, scenes, mics, pairs_i, pairs_j, n,
+                                    mask, groups):
+        for h, corr in enumerate((inv.real / n, inv.imag / n)):
+            p = 2 * c + h
+            if p < pairs:
+                win[s, p, at[at >= 0]] = corr[at >= 0]
+                total, top, arg = block_reduce_model(corr, block_threads(n))
+                stats[s, p] = total / n, top, arg
+    assert not np.isnan(win).any() and not np.isnan(stats).any()
+    return win, stats
+
+
+def _noise_inputs(rng, scenes):
+    snr = rng.uniform(20.0, 40.0, scenes)
+    seeds = rng.integers(-2 ** 31, 2 ** 31, (scenes, 2)).astype(np.int32)
+    return snr, seeds
+
+
+@pytest.mark.parametrize("mics", [2, 3, 4, 5, 8])
+@pytest.mark.parametrize("n", [512, 1024, 2048, 4096])
+def test_render_block_matches_delay_sum(n, mics):
+    """K3's one-block render (a packed base row's two scenes, odd mic counts
+    packed across them, the mixes, the packed inverse, the finish of both
+    halves) at 1 and 2 scenes, 1 to 3 paths, mic rows shared over groups,
+    with the finalize and noise (the noise held by its key map) and
+    without, against ``delay_sum_plain`` within 1e-9 of the max; the rows
+    K5 packs are K3's rows in K2's packing."""
+    rng = np.random.default_rng(n + mics)
+    t = torch.from_numpy
+    for scenes, paths, groups, finish in ((1, 1, 1, True),
+                                          (2, 1 + mics % 3, 2, True),
+                                          (2, 3, 1 + mics // 3, False)):
+        out_len = n - n // 8
+        base, tau, gain = _render_case(rng, scenes, mics, paths, n)
+        fade = rng.uniform(0.5, 1.0, out_len)
+        snr, seeds = _noise_inputs(rng, scenes) if finish else (None, None)
+        got, packed = render_block_model(base, tau, gain, n, out_len, fade,
+                                         finish, snr, seeds, groups)
+        want = cf.delay_sum_plain(
+            t(base), t(tau), t(gain), n, out_len, t(fade), finish,
+            None if snr is None else t(snr),
+            None if seeds is None else t(seeds)).numpy()
+        assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
+        rows = got.reshape(scenes * mics, out_len)
+        assert np.array_equal(packed, _pack(rows, n))
+
+
+@pytest.mark.parametrize("mics", [2, 3, 4, 5, 8])
+@pytest.mark.parametrize("n", [512, 1024, 2048, 4096])
+def test_window_block_matches_gcc_windowed(n, mics):
+    """K2's one-block GCC (a scene's packed rows across scenes, odd pair
+    counts, couples shared over groups) with ``WindowOut``'s lag window and
+    block reductions, at 1 and 2 scenes and the narrowest and widest
+    window, against ``gcc_windowed_plain``: the window within 1e-9 of the
+    max, the argmax equal, the mean and the maximum within 1e-9."""
+    rng = np.random.default_rng(10 * n + mics)
+    pi, pj = _pairs(mics)
+    mask = cf.band_mask(n, (300.0, 3400.0), 16000.0,
+                        dtype=torch.float64).numpy()
+    for scenes, wq, groups in ((1, 1, 2), (2, n // 256, 1)):
+        sig = rng.standard_normal((scenes, mics, n - n // 5))
+        z = _pack(sig.reshape(scenes * mics, -1), n)
+        win, stats = window_block_model(z, scenes, mics, pi, pj, n, wq, mask,
+                                        groups)
+        w2, s2 = cf.gcc_windowed_plain(torch.from_numpy(sig), pi, pj, n, wq,
+                                       torch.from_numpy(mask))
+        w2, s2 = w2.numpy(), s2.numpy()
+        assert np.abs(win - w2).max() < 1e-9 * np.abs(w2).max()
+        assert np.array_equal(stats[..., 2], s2[..., 2])
+        assert np.abs(stats[..., :2] - s2[..., :2]).max() < 1e-9
+
+
+@pytest.mark.parametrize("n", [512, 4096])
+def test_window_block_keeps_the_smallest_tied_index(n):
+    """``WindowOut``'s reductions on a planted tie of the maximum whose
+    smallest index (33: thread 33, warp 1) is held by a later warp than
+    two larger tied indices (threads 5 and 2, warp 0) and by an earlier
+    thread than another (34), and on a silent row whose zeros carry both
+    signs: the smallest natural index (``torch.argmax``'s first
+    occurrence) and +0 at index 0, whatever thread holds it."""
+    threads = block_threads(n)
+    rng = np.random.default_rng(n)
+    corr = rng.uniform(-1, 0.5, n)
+    ties = [threads + 5, 2 * threads + 2, 34, 33, n - 1]
+    corr[ties] = 0.75
+    got = block_reduce_model(corr, threads)
+    assert got[1:] == (0.75, 33) == (0.75, int(torch.argmax(
+        torch.from_numpy(corr))))
+    assert abs(got[0] - np.abs(corr).sum()) < 1e-9 * n
+    zero = np.where(rng.random(n) < 0.5, -0.0, 0.0)
+    zero[0] = -0.0
+    total, top, at = block_reduce_model(zero, threads)
+    assert (total, at) == (0.0, 0) and top == 0 and not np.signbit(top)
+
+
+@pytest.mark.parametrize("scenes,mics,n,wq", [(2, 3, 1024, 2),
+                                              (3, 5, 2048, 4),
+                                              (1, 8, 4096, 16)])
+def test_scene_block_is_render_then_window(scenes, mics, n, wq):
+    """K5 in one block: ``window_block`` over the rows ``render_block``
+    packed equals ``window_block`` over K3's rows as K2 packs them, to the
+    bit, and both equal ``scene_windowed_plain`` within 1e-9."""
+    rng = np.random.default_rng(scenes * 100 + mics + n)
+    pi, pj = _pairs(mics)
+    out_len = n - n // 4
+    base, tau, gain = _render_case(rng, scenes, mics, 2, n)
+    fade = rng.uniform(0.5, 1.0, out_len)
+    snr, seeds = _noise_inputs(rng, scenes)
+    mask = cf.band_mask(n, (300.0, 3400.0), 16000.0,
+                        dtype=torch.float64).numpy()
+    rows, packed = render_block_model(base, tau, gain, n, out_len, fade,
+                                      True, snr, seeds, 2)
+    fused = window_block_model(packed, scenes, mics, pi, pj, n, wq, mask)
+    split = window_block_model(_pack(rows.reshape(scenes * mics, out_len), n),
+                               scenes, mics, pi, pj, n, wq, mask)
+    assert all(np.array_equal(a, b) for a, b in zip(fused, split))
+    t = torch.from_numpy
+    w2, s2 = cf.scene_windowed_plain(t(base), t(tau), t(gain), pi, pj, n,
+                                     out_len, wq, t(fade), t(mask), t(snr),
+                                     t(seeds))
+    assert np.abs(fused[0] - w2.numpy()).max() < 1e-9
+    assert np.array_equal(fused[1][..., 2], s2.numpy()[..., 2])
 
 
 # ---------------------------------------------------------------------------

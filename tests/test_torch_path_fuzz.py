@@ -5,8 +5,9 @@ stubbed as tests/test_torch_routing.py does it, each configuration's card
 half launches the kernels its ``route`` names with that route's schedule,
 and together they reach every sweep route the card runs: K5 fused, K3 then
 K2 on the split, K1 in one block, on the split and on the radix-2 passes,
-K2 / K3 / K5 on the passes at nfft <= 4,096, and K4a + K9 on a single pair
-with K4a's passes above 2^20.  The stubbed kernels write nothing, so the
+K2 / K3 / K5 in one block at nfft <= 4,096 and K2 / K5's GCC on the passes
+that remain there (12 mics at 4,096), and K4a + K9 on a single pair with
+K4a's passes above 2^20.  The stubbed kernels write nothing, so the
 solver tails downstream of them are stubbed too; the fuzz's plain half and
 its comparisons run on the card only."""
 
@@ -117,15 +118,19 @@ def test_configurations_reach_every_sweep_route():
         return {(r[kernel][0], r[kernel][-1]) for r in routes
                 if kernel in r}
 
-    assert any(r["scene_windowed"][-1] == "fused passes/passes"
-               and r["scene_windowed"][0] <= 4096 for r in routes
-               if "scene_windowed" in r)
-    assert any(label.startswith("fused split")
-               for _, label in stages("scene_windowed"))
+    k5 = stages("scene_windowed")
+    assert any(n <= 4096 and lab == "fused block/block" for n, lab in k5)
+    assert any(n <= 4096 and lab == "fused block/passes" for n, lab in k5)
+    assert any(label.startswith("fused split") for _, label in k5)
     for kernel in ("delay_sum", "gcc_windowed"):
         labels = stages(kernel)
-        assert any(n <= 4096 and lab == "passes" for n, lab in labels)
+        assert any(n <= 4096 and lab == "block" for n, lab in labels)
         assert any(lab.startswith("split") for _, lab in labels)
+    # What stays on the passes at <= 4,096: K2's GCC where a scene's rows
+    # do not fit one block; K3 never does.
+    assert (4096, "passes") in stages("gcc_windowed")
+    assert not any(n <= 4096 and lab == "passes"
+                   for n, lab in stages("delay_sum"))
     k1 = {lab.split()[0] for _, lab in stages("gcc_all_pairs")}
     assert k1 == {"block", "split", "passes"}
     assert (65536, "passes") in stages("gcc_all_pairs")      # 64 mics

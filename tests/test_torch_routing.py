@@ -6,7 +6,7 @@ outputs are left as allocated, so these tests read the launches only.
 
 They hold K4a's radix-2 passes above 2^20, the row chunks of K4a, K4b, K6
 and K9, the scene chunks of K2, K3 and K5 at the sweep's 65,535 grid
-limit, the exact-length parity path (K7 only), the api from recorded files
+limit, their one-block schedule up to 4,096 points and its scratch, the exact-length parity path (K7 only), the api from recorded files
 (K1, K4a, K4b), the compat layer's single pair (K4a + K9 at a power of
 two, K7 otherwise), array calibration (K1 over the events at a power of
 two, K7 at the exact length) and beamformed extraction (no kernel).
@@ -192,6 +192,42 @@ def test_scene_wrappers_chunk_by_one_rule(launches, scenes, chunks):
                       snr, seeds)
     for name in ("delay_sum", "gcc_windowed", "scene_windowed"):
         assert [a[1] for a in _named(launches, name)] == chunks, name
+
+
+@pytest.mark.parametrize("nfft,mics,n1g", [(512, 4, 1), (2048, 3, 1),
+                                          (4096, 10, 1), (4096, 11, 0),
+                                          (2048, 25, 0)])
+def test_scene_wrappers_run_one_block_up_to_4096(launches, nfft, mics, n1g):
+    """Up to 4,096 points K3 launches with n1 = 1 and no scratch, K2 with
+    the GCC stage's n1 (1 where a scene's rows fit one block, else 0, the
+    passes, with their two ping-pong buffers), and K5 with both: in one
+    block only the packed mic rows that carry the finished signals from
+    ``render_block`` to ``window_block``, a second copy and the cross rows
+    where its GCC runs the passes; no partials buffer either way."""
+    scenes, out, wq = 3, nfft - nfft // 8, 1
+    pi, pj = tsw._pairs(mics)
+    base = torch.zeros(scenes, out)
+    tau = torch.zeros(scenes, mics, 1)
+    gains = torch.ones(scenes, mics, 1)
+    fade = torch.ones(out)
+    mask = torch.ones(nfft // 2 + 1)
+    snr = torch.zeros(scenes)
+    seeds = torch.zeros(scenes, 2, dtype=torch.int32)
+    cf.delay_sum(base, tau, gains, nfft, out, fade, True, snr, seeds)
+    cf.gcc_windowed(torch.zeros(scenes, mics, out), pi, pj, nfft, wq, mask)
+    cf.scene_windowed(base, tau, gains, pi, pj, nfft, out, wq, fade, mask,
+                      snr, seeds)
+    (k3,) = _named(launches, "delay_sum")
+    assert k3[8] == 1 and k3[15:19] == (None,) * 4
+    (k2,) = _named(launches, "gcc_windowed")
+    assert k2[5] == n1g and k2[17:20] == (None,) * 3
+    buffers = k2[13:17]   # spec0, spec1, c0, c1
+    assert buffers == (None,) * 4 if n1g else None not in buffers
+    (k5,) = _named(launches, "scene_windowed")
+    assert k5[8:10] == (1, n1g) and k5[21:23] == (None, None)
+    assert k5[23] is not None and k5[27:30] == (None,) * 3
+    buffers = k5[24:27]   # z1, c0, c1
+    assert buffers == (None,) * 3 if n1g else None not in buffers
 
 
 # ---------------------------------------------------------------------------

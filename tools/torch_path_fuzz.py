@@ -12,9 +12,10 @@ names each configuration's): K5 fused (parallel/sweep.py
 ``_estimate``), K1 on the full-correlation branch in one block, on the
 split and on the radix-2 passes (the 64-mic case at 65,536 stands in for
 tpu_kernel_check.py's check (b), the GCC beyond the split's strips), K2 /
-K3 / K5 on the passes at nfft <= 4,096, and K4a + K9 through
-``models.tdoa.get_time_delays_phat`` at random lengths, K4a on its
-passes above 2^20.
+K3 / K5 in one block at nfft <= 4,096 and, with 12 mics at 4,096, K2 and
+K5's GCC stage on the passes that remain where a scene's rows do not fit
+one block, and K4a + K9 through ``models.tdoa.get_time_delays_phat`` at
+random lengths, K4a on its passes above 2^20.
 
 For each configuration the scenes are drawn and rendered on the card
 (K3), then localized twice: on the card (the kernels: the fused K5 path
@@ -79,7 +80,7 @@ ROOM6 = dict(
     max_reflections=2)
 # (solver, reverberant, mics, fs, transform, scenes): what each reaches.
 SWEEPS = (
-    ("lm", False, 4, 16000.0, 4096, 4),     # K5 / K3 / K2 on the passes
+    ("lm", False, 4, 16000.0, 4096, 4),     # K5 / K3 / K2 in one block
     ("lm", False, 5, 8000.0, 512, 4),       # the shortest transform
     ("lm", False, 3, 48000.0, 16384, 4),    # K5 / K3 / K2 on the split
     ("lm", True, 7, 16000.0, 8192, 4),      # reverberant, on the split
@@ -91,6 +92,7 @@ SWEEPS = (
     ("srp", False, 6, 44100.0, 65536, 4),   # K1 on the split
     ("srp", False, 12, 48000.0, 32768, 4),  # K1 on the split, 66 pairs
     ("srp", False, 64, 16000.0, 65536, 2),  # K1 beyond the split's strips
+    ("lm", False, 12, 16000.0, 4096, 4),    # K2 / K5's GCC on the passes
 )
 # (fs, transform) of the single pairs: one block, the split, the split's
 # longest, the radix-2 passes above 2^20.
