@@ -12,11 +12,15 @@ in twelve phases:
    turns, the least time the card could take (``bound_ms``) and, where one
    PyTorch call computes the same function, that call's time (K4a also
    at no_gate's 131,072, the single pair's two rows and 1024 rows against
-   ``torch.fft.rfft``, with device times, and two rows of a 23.7 s
-   recording at 2^21 on the radix-2 passes, 23 device kernels a call;
+   ``torch.fft.rfft``, with device times, two rows of a 23.7 s
+   recording at 2^21 and one row at 2^22 on the split with strips of 8,
+   2 device kernels a call, and one row at 2^23 on the radix-2 passes, 25;
    K4b also at no_gate's 131,072
-   and two rows, with its device time and kernels per call; K6 also at
-   131,072, each shape equal to K4b on the same draws, with its device
+   and two rows, with its device time and kernels per call, and above
+   2^20 at 64 and 1,000 rows of the 23.7 s pair at 2^21 and 3 rows at
+   2^22, 3 device kernels a call, and 3 rows at 2^23 on the passes, 48;
+   K6 also at 131,072 and at K4b's shapes above 2^20 (the passes at 2^23:
+   47 kernels), each shape equal to K4b on the same draws, with its device
    time and kernels per call, as K5, K3 and K2 at the sweep's and the
    api's shapes; K3, K2 and K5 also at an odd mic count on the split, K5
    at the api's scene, each within 1e-6 of K3 then K2, and K3, K2 and K5
@@ -59,8 +63,8 @@ in twelve phases:
    (K1 at 131,072) + adaptive + Wiener + calibration delays; and
    ``get_time_delays_phat`` at the exact length (K7) and at 65,536 (K4a +
    K9) — these against ``tests/data/torch_options_golden.json``; and both
-   nulls at nfft 2^21 (K4a with K4b or K6 on the radix-2 passes) against
-   their twins on the same draws;
+   nulls at nfft 2^21 (K4a with K4b or K6 on the split, 2,048 x 1,024)
+   against their twins on the same draws;
 5. the batched Monte-Carlo sweep at ``bench.py``'s ``bench_full_sweep``
    spec on 512 scenes: the fused path (K5) against the split path (K3 with
    noise, then K2) per scene on the same draws, the hit rate and median
@@ -128,8 +132,9 @@ in twelve phases:
    samples, position within 5 mm, ``significant`` where clear) and parity
    mode with the pre-sync (K7 alone, ``check_parity``); a 4 x 24 s
    recording at 48 kHz written by ``write_wav`` and read back (nfft 2^21:
-   K1, and K4a with K6 on the radix-2 passes; TDOAs within 0.5 samples of
-   the injected delays), with the resampling's time and peak memory;
+   K1 on the radix-2 passes, K4a with K6 on the split; TDOAs within 0.5
+   samples of the injected delays), with the resampling's time and peak
+   memory, a warm call's wall time and its device time by kernel;
    ``compat`` on the card (speed of sound, the single pair at the exact
    length by K7 and at a power of two by K4a + K9, the permutation null by
    K4a + K4b within 5 %, the significance metrics, ``noise_reduction`` by
@@ -266,13 +271,30 @@ ADDED = {("delay_sum", "odd"): 1, ("gcc_windowed", "odd"): 1,
          ("whiten", "stream"): 5, ("whiten", "stream28"): 5,
          ("gcc_all_pairs", "calibration"): 6,
          ("gcc_all_pairs", "calibration6"): 6, ("delay_sum", "short"): 7,
-         ("gcc_windowed", "short"): 7, ("scene_windowed", "short"): 7}
+         ("gcc_windowed", "short"): 7, ("scene_windowed", "short"): 7,
+         ("fft_real", "long22"): 8, ("fft_real", "passes23"): 8,
+         ("bootstrap_peaks", "long"): 8, ("bootstrap_peaks", "long1000"): 8,
+         ("bootstrap_peaks", "long22"): 8, ("bootstrap_peaks", "passes23"): 8,
+         ("noise_bootstrap_peaks", "long"): 8,
+         ("noise_bootstrap_peaks", "long1000"): 8,
+         ("noise_bootstrap_peaks", "long22"): 8,
+         ("noise_bootstrap_peaks", "passes23"): 8}
 # The sweep across K2's, K3's and K5's scene-chunk boundary: one scene past
 # the 65,535 grid rows of one launch at 4 mics (3 couples), at nfft 512.
 CHUNK_SCENES = 21846
-LONG_NFFT = 1 << 21       # above K4a's largest four-step split (2^20)
+LONG_NFFT = 1 << 21       # K4a's, K4b's and K6's split of 8-wide strips
 LONG_SAMPLES = 1046019    # 23.7 s at 44.1 kHz: the api's nfft passes 2^20
 LONG_DRAWS = 64
+# Phase 3's cases above 2^20: (samples, nfft) of one row at K4a's, K4b's
+# and K6's largest split (2,048 x 2,048: 8 columns and 8 rows a strip) and
+# past it (the radix-2 passes), with their device kernels a call there
+# (K4a: the packing, 23 passes, the split; K4b: the packing, 23 forward
+# passes, the whitening, 22 inverse ones and the last with the maxima;
+# K6: its first pass draws the rows).
+LONG22 = (2000000, 1 << 22)
+PASSES23 = (4200000, 1 << 23)
+PASSES23_KERNELS = {"fft_real": 25, "bootstrap_peaks": 48,
+                    "noise_bootstrap_peaks": 47}
 # The card's name and power limit (nvidia-smi), set by main().
 CARD = ["not read"]
 # Device kernels a call of K3 or K2 runs at phase 3's one-block shapes
@@ -451,6 +473,7 @@ def kernel_phase(cf, torch):
     from pyaudiolocalization_tpu_torch.ops import noise as noise_ops
     bench = _load_tool("torch_rowdft_bench")
     device_ms = bench.device_ms
+    twin_rows = bench.twin_rows
 
     def log_device(name, fn, calls=5, kernels=None):
         """Logs the device time and kernels per call (``torch.profiler``);
@@ -608,14 +631,16 @@ def kernel_phase(cf, torch):
     # and an edge of one block; torch.fft.rfft is the library call.  The
     # device time per call (torch.profiler) is logged beside the CUDA-event
     # time, which a single row's host time between calls dominates.
-    # "long": the single pair's two rows of a 23.7 s recording at 2^21, on
-    # the radix-2 passes (the packing, 21 passes and the split: 23 device
-    # kernels a call).
+    # "long": the single pair's two rows of a 23.7 s recording at 2^21 and
+    # "long22" one row at 2^22, on the split with strips of 8 columns (2
+    # device kernels a call); "passes23" one row at 2^23, past the split,
+    # on the radix-2 passes.
     for tag, (rows_n, length, nfft) in {
             "main": (1, N, NFFT), "no_gate": (1, N, 2 * NFFT),
             "single_pair": (2, N, NFFT), "rows": (1024, NFFT, NFFT),
             "edge": (1, 3000, 4096),
-            "long": (2, LONG_SAMPLES, LONG_NFFT)}.items():
+            "long": (2, LONG_SAMPLES, LONG_NFFT),
+            "long22": (1,) + LONG22, "passes23": (1,) + PASSES23}.items():
         draw("fft_real", tag)
         x = randn(rows_n, length).contiguous()
         res = compare(
@@ -631,46 +656,72 @@ def kernel_phase(cf, torch):
             f"{device_ms(lambda: cf.fft_real(x, nfft))['total']:.4f} ms, "
             f"torch.fft.rfft "
             f"{device_ms(lambda: torch.fft.rfft(x, n=nfft))['total']:.4f} ms")
-        if tag == "long":
+        if tag in ("long", "long22", "passes23"):
             log_device(f"fft_real[{tag}]", lambda: cf.fft_real(x, nfft),
-                       kernels=2 + int(math.log2(nfft)))
+                       kernels=PASSES23_KERNELS["fft_real"]
+                       if tag == "passes23" else 2)
         if tag == "main":
             results["fft_real"] = res
+        del x
+
+    def long_kernels(name, tag):
+        """Device kernels a call of K4b or K6 at a case above 2^20: three
+        on the split (the column pass, the row pass, the column pass with
+        the maxima), the radix-2 passes' count at 2^23; None below."""
+        if tag.startswith("long"):
+            return 3
+        return PASSES23_KERNELS[name] if tag == "passes23" else None
 
     # K4b: bootstrap null at 1000 permuted rows, at the main path's 65,536
     # and no_gate's 131,072 (three launches over the four-step split);
     # edges: two rows (16-row strips) and 999 rows at 4,096 (one block).
+    # Above 2^20: the 23.7 s pair's null at phase 10's 64 draws and at the
+    # default 1,000 (2,048 x 1,024: strips of 8 columns, 16 rows), 3 rows
+    # at 2^22 (8 columns, 8 rows), 3 device kernels a call each, and 3 rows
+    # at 2^23 on the radix-2 passes; their twins run in chunks of rows
+    # (the bench tool's ``twin_rows``; up to 2^16 one call).
     # The device time per call and the device kernels a call runs
     # (torch.profiler) are logged beside the CUDA-event time.
-    for tag, (rows_n, length, nfft) in {"main": (1000, N, NFFT),
-                                        "no_gate": (1000, N, 2 * NFFT),
-                                        "two": (2, N, NFFT),
-                                        "edge": (999, 3000, 4096)}.items():
+    for tag, (rows_n, length, nfft) in {
+            "main": (1000, N, NFFT), "no_gate": (1000, N, 2 * NFFT),
+            "two": (2, N, NFFT), "edge": (999, 3000, 4096),
+            "long": (LONG_DRAWS, LONG_SAMPLES, LONG_NFFT),
+            "long1000": (NULL_DRAWS, LONG_SAMPLES, LONG_NFFT),
+            "long22": (3,) + LONG22, "passes23": (3,) + PASSES23}.items():
         draw("bootstrap_peaks", tag)
         sig2 = randn(length)
         keys = rand(rows_n, length)
         rows = sig2[torch.argsort(keys, dim=-1)].contiguous()
+        del keys
         s1 = cf.fft_real_plain(randn(1, length), nfft)[0].contiguous()
         res = compare(
             f"bootstrap_peaks[{tag}] rows={rows_n} len={length} nfft={nfft}",
             lambda: cf.bootstrap_peaks(s1, rows, nfft),
-            lambda: cf.bootstrap_peaks_plain(s1, rows, nfft),
+            lambda: twin_rows(lambda r: cf.bootstrap_peaks_plain(s1, r, nfft),
+                              rows, nfft),
             tol=1e-6, reps=3,
             least=bound(8 * (nfft // 2 + 1) + 4 * rows_n * (length + 1),
                         rows_n * (2 * _rfft_ops(nfft) + (nfft // 2) * 15)))
         log_device(f"bootstrap_peaks[{tag}]",
-                   lambda: cf.bootstrap_peaks(s1, rows, nfft))
+                   lambda: cf.bootstrap_peaks(s1, rows, nfft),
+                   kernels=long_kernels("bootstrap_peaks", tag))
         if tag == "main":
             results["bootstrap_peaks"] = res
+        del rows
 
     # K6: the noise null, 1000 draws of 44,100 samples (edge: an odd draw
-    # count and n_samp <= nfft/2, the TPU kernel's pruned shape).  Bound:
-    # K4b's transforms and whitening plus ~10 operations per uniform draw.
-    # K6 runs K4b's schedules with the draws made where they are read, so
-    # on the same draws (the twin's) its peaks must equal K4b's exactly.
-    for tag, (rows_n, n_samp, nfft) in {"main": (NULL_DRAWS, N, NFFT),
-                                        "no_gate": (NULL_DRAWS, N, 2 * NFFT),
-                                        "edge": (999, 1500, 4096)}.items():
+    # count and n_samp <= nfft/2, the TPU kernel's pruned shape), and K4b's
+    # shapes above 2^20.  Bound: K4b's transforms and whitening plus ~10
+    # operations per uniform draw.  K6 runs K4b's schedules with the draws
+    # made where they are read, so on the same draws (the twin's) its peaks
+    # must equal K4b's exactly.
+    for tag, (rows_n, n_samp, nfft) in {
+            "main": (NULL_DRAWS, N, NFFT),
+            "no_gate": (NULL_DRAWS, N, 2 * NFFT),
+            "edge": (999, 1500, 4096),
+            "long": (LONG_DRAWS, LONG_SAMPLES, LONG_NFFT),
+            "long1000": (NULL_DRAWS, LONG_SAMPLES, LONG_NFFT),
+            "long22": (3,) + LONG22, "passes23": (3,) + PASSES23}.items():
         draw("noise_bootstrap_peaks", tag)
         s1 = cf.fft_real_plain(randn(1, n_samp), nfft)[0].contiguous()
         seeds = randint(rows_n, 2)
@@ -678,13 +729,17 @@ def kernel_phase(cf, torch):
             f"noise_bootstrap_peaks[{tag}] draws={rows_n} n_samp={n_samp} "
             f"nfft={nfft}",
             lambda: cf.noise_bootstrap_peaks(s1, seeds, n_samp, nfft),
-            lambda: cf.noise_bootstrap_peaks_plain(s1, seeds, n_samp, nfft),
+            lambda: twin_rows(lambda sd: cf.noise_bootstrap_peaks_plain(
+                s1, sd, n_samp, nfft), seeds, nfft),
             tol=1e-6, reps=3,
             least=bound(8 * (nfft // 2 + 1) + 8 * rows_n + 4 * rows_n,
                         rows_n * (2 * _rfft_ops(nfft) + (nfft // 2) * 15
                                   + 10 * n_samp)))
         got = cf.noise_bootstrap_peaks(s1, seeds, n_samp, nfft)
-        want = cf.bootstrap_peaks(s1, noise_ops.uniform(seeds, n_samp), nfft)
+        draws = twin_rows(lambda sd: noise_ops.uniform(sd, n_samp), seeds,
+                          nfft)
+        want = cf.bootstrap_peaks(s1, draws, nfft)
+        del draws
         if not torch.equal(got, want):
             raise AssertionError(
                 f"noise_bootstrap_peaks[{tag}] departs from bootstrap_peaks "
@@ -692,7 +747,8 @@ def kernel_phase(cf, torch):
         log(f"noise_bootstrap_peaks[{tag}] equals bootstrap_peaks on the "
             "same draws")
         log_device(f"noise_bootstrap_peaks[{tag}]",
-                   lambda: cf.noise_bootstrap_peaks(s1, seeds, n_samp, nfft))
+                   lambda: cf.noise_bootstrap_peaks(s1, seeds, n_samp, nfft),
+                   kernels=long_kernels("noise_bootstrap_peaks", tag))
         if tag == "main":
             results["noise_bootstrap_peaks"] = res
 
@@ -2709,8 +2765,10 @@ def long_recording(cf, torch, launches):
     """Step 3: 4 mics x 24 s at 48 kHz of a seeded noise source with
     whole-sample delays, written by the port's write_wav and read back:
     after resampling n >= LONG_SAMPLES, so the GCC and the noise null
-    transform at 2^21 (K1, and K4a with K6 on their radix-2 passes).  Each
-    TDOA within 0.5 samples of its injected delay x 44,100 / 48,000."""
+    transform at 2^21 (K1 on its radix-2 passes, K4a with K6 on their
+    split of 8-wide strips).  Each TDOA within 0.5 samples of its injected
+    delay x 44,100 / 48,000.  Then a second, warm call's wall time and one
+    more call's device time by kernel (``torch.profiler``)."""
     import os
     import tempfile
     import numpy as np
@@ -2767,6 +2825,16 @@ def long_recording(cf, torch, launches):
     if not err < 0.5 or not all(map(math.isfinite, got)):
         raise AssertionError("the 24 s recording's TDOAs depart from the "
                              "injected delays")
+    (_, warm), counts = run_path(
+        cf, "the 24 s recording, warm", run,
+        ("gcc_all_pairs", "fft_real", "noise_bootstrap_peaks"))
+    _add(launches, counts)
+    dev = _load_tool("torch_rowdft_bench").device_ms(run, 1)
+    log(f"24 s recording warm: {warm:.3f} s wall; device time a call "
+        f"{dev['total']:.3f} ms in {dev['kernels']:g} kernels, by kernel: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+            dev.items(), key=lambda kv: -kv[1])
+            if k not in ("total", "kernels")) + f" {card_note()}")
 
 
 def compat_on_card(cf, torch, golden, launches):

@@ -206,12 +206,25 @@ inline int sm_count() {
 }
 
 // Calls launch(std::integral_constant<int, S>()) for K4a's pass-2 strip
-// width s2 = S of 16, 32 or 64 rows (a template argument of the kernel).
+// width s2 = S of 8, 16, 32 or 64 rows (a template argument of the
+// kernel).
 template <typename Launch>
 cudaError_t with_strip(int s2, Launch launch) {
   if (s2 == 64) return launch(std::integral_constant<int, 64>());
   if (s2 == 32) return launch(std::integral_constant<int, 32>());
   if (s2 == 16) return launch(std::integral_constant<int, 16>());
+  if (s2 == 8) return launch(std::integral_constant<int, 8>());
+  return cudaErrorInvalidValue;
+}
+
+// The same for the strips of K4a's, K4b's and K6's column passes and of
+// K4b's and K6's row pass: 16 (kStrip) up to n1 (n2) = 1,024, 8 at 2,048
+// (``cuda_fft.split_strips``).
+template <typename Launch>
+cudaError_t with_split_strip(int strip, Launch launch) {
+  if (strip == palt::kStrip)
+    return launch(std::integral_constant<int, palt::kStrip>());
+  if (strip == 8) return launch(std::integral_constant<int, 8>());
   return cudaErrorInvalidValue;
 }
 
@@ -221,7 +234,7 @@ cudaError_t with_strip(int s2, Launch launch) {
 // n = n1 * n2, j = n2*j1 + j2 and k = k1 + n1*k2:
 //   Z[k1 + n1 k2] = sum_j2 W_n2^{j2 k2} W_n^{j2 k1}
 //                   * sum_j1 W_n1^{j1 k1} z[n2 j1 + j2].
-// Pass 1 (`fft_real_cols`) runs the n1-point DFTs down strips of kStrip
+// Pass 1 (`fft_real_cols`) runs the n1-point DFTs down strips of S
 // columns j2 and writes Y[k1, j2] times W_n^{j2 k1}, row-major; pass 2
 // (`fft_real_rows`) runs the n2-point DFTs along rows k1 and splits the
 // two real spectra in its epilogue: Z[n - k] lies in row (n1 - k1) mod n1
@@ -230,6 +243,15 @@ cudaError_t with_strip(int s2, Launch launch) {
 // n1 - k1 (block 0 holds row n1/2, its own partner, in the slot of row
 // 0's) and writes bins 0..n/2 of both real rows straight to the output.
 // For n <= 4096 one block holds the packed row (`fft_real_block`).
+//
+// Up to 2^20 (n1, n2 <= 1,024) the column strips hold 16 columns; at
+// 2^21 and 2^22 (n1 = 2,048) a strip of 16 would be 32,768 points (295
+// KB), past `block_fft`'s kElems * 1024 points and a block's 227 KB, so
+// the host takes 8 (n1 * 8 = 16,384 points, 164-172 KB: 64 bytes, two
+// 32-byte sectors, of each row a strip reads), and pass 2 strips of 8 rows
+// at n2 = 2,048.  Bound: device memory, 32 bytes a point of the packed
+// rows over the split (pass 1 writes Y, pass 2 reads it: 16 each way)
+// besides the rows' read and the spectra's write.
 
 // Row of Y in slot r (< 2 * pairs) of pass-2 block b.
 __device__ __forceinline__ int pair_row(int b, int r, int n1, int pairs) {
@@ -371,31 +393,31 @@ struct PackedLoad {
   }
 };
 
-// Pass 1.  Grid (n2 / kStrip column strips, packed rows).  The twiddle
-// W_n^{j2 k1} from the two tables of `stage_split_tables`.  The block
-// writes the strip it read, so y may be the loader's own buffer.
-template <class Load>
+// Pass 1.  Grid (n2 / S column strips, packed rows), S = kStrip (16) or
+// 8 columns a strip (n1 * S <= kElems * 1024).  The twiddle W_n^{j2 k1}
+// from the two tables of `stage_split_tables`.  The block writes the
+// strip it read, so y may be the loader's own buffer.
+template <class Load, int S>
 __global__ void __launch_bounds__(1024)
 fft_real_cols(Load load, int n1, int n2, const float2* __restrict__ tw,
               float2* y) {
   using palt::kElems;
-  using palt::kStrip;
   float2* stw = palt::fft_shared();
   float2* lo = stw + (n1 >> 1);
   float2* hi = lo + n1;
   float2* buf = hi + n2;
   const int n = n1 * n2;
   const int c = blockIdx.y;
-  const int c0 = blockIdx.x * kStrip;
+  const int c0 = blockIdx.x * S;
   const auto src = load.row(c);
   palt::stage_twiddles(stw, tw, n1, n2);
   stage_split_tables(lo, hi, tw, n1, n2);
-  const int total = n1 * kStrip;
+  const int total = n1 * S;
   float2 v[kElems];
 #pragma unroll
   for (int u = 0; u < kElems; ++u) {
     const int idx = threadIdx.x + u * blockDim.x;
-    const int t = (idx / kStrip) * n2 + c0 + idx % kStrip;
+    const int t = (idx / S) * n2 + c0 + idx % S;
     v[u] = idx < total ? src(t) : make_float2(0.0f, 0.0f);
   }
 #pragma unroll
@@ -403,34 +425,33 @@ fft_real_cols(Load load, int n1, int n2, const float2* __restrict__ tw,
     const int idx = threadIdx.x + u * blockDim.x;
     if (idx < total) buf[idx] = v[u];
   }
-  palt::block_fft<kStrip>(buf, kStrip, 1, n1, stw, 1.0f);
+  palt::block_fft<S>(buf, S, 1, n1, stw, 1.0f);
   float2* yc = y + (size_t)c * n;
   for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int k1 = idx / kStrip;
-    const int j2 = c0 + idx % kStrip;
+    const int k1 = idx / S;
+    const int j2 = c0 + idx % S;
     yc[(size_t)k1 * n2 + j2] =
         cmul(buf[idx], split_twiddle(lo, hi, j2 * k1, n1));
   }
 }
 
-// Pass 1 over `packed` rows of load into y.
-template <class Load>
+// Pass 1 over `packed` rows of load into y, strips of S columns.
+template <int S = palt::kStrip, class Load>
 cudaError_t cols_launch(Load load, int packed, int n1, int n2,
                         const float2* tw, float2* y, cudaStream_t s) {
-  const int smem =
-      (n1 / 2 + n1 + n2 + n1 * palt::kStrip) * (int)sizeof(float2);
-  const cudaError_t err = palt::allow_smem<fft_real_cols<Load>>();
+  const int smem = (n1 / 2 + n1 + n2 + n1 * S) * (int)sizeof(float2);
+  const cudaError_t err = palt::allow_smem<fft_real_cols<Load, S>>();
   if (err != cudaSuccess) return err;
-  fft_real_cols<Load><<<dim3(n2 / palt::kStrip, packed),
-                        palt::fft_threads(n1, palt::kStrip), smem, s>>>(
-      load, n1, n2, tw, y);
+  fft_real_cols<Load, S><<<dim3(n2 / S, packed), palt::fft_threads(n1, S),
+                           smem, s>>>(load, n1, n2, tw, y);
   return cudaGetLastError();
 }
 
 // Pass 2.  Grid (n1 / S blocks of S / 2 rows and their partners, packed
 // rows) -> out (rows, n/2 + 1).  The output's runs of consecutive bins are
 // S / 2 long: S = 64 or 32 where the strip fits in shared memory and the
-// batch fills the card, else 16 (``cuda_fft.fft_real_rows_strip``).
+// batch fills the card, 8 at n2 = 2,048 (runs of 4 bins, one 32-byte
+// sector), else 16 (``cuda_fft.fft_real_rows_strip``).
 template <int S>
 __global__ void __launch_bounds__(1024)
 fft_real_rows(const float2* __restrict__ y, int rows, int n1, int n2,
@@ -484,7 +505,7 @@ fft_real_rows(const float2* __restrict__ y, int rows, int n1, int n2,
   }
 }
 
-// K4a above 2^20 (n1 = 0), after the radix-2 passes: packed natural-order
+// K4a above 2^22 (n1 = 0), after the radix-2 passes: packed natural-order
 // rows z (ceil(rows/2), n) -> the two real spectra, bins 0..n/2 of rows
 // 2c and 2c+1 of out (rows, n/2 + 1).  The split's bound holds: one read
 // of the packed row and one write of each spectrum.
@@ -504,7 +525,7 @@ __global__ void split_spectra(const float2* __restrict__ z, int rows, int n,
   }
 }
 
-// Pass 2 with S = s2 (16, 32 or 64).
+// Pass 2 with S = s2 (8, 16, 32 or 64).
 int fft_real_rows_launch(const float2* y, int rows, int n1, int n2, int s2,
                          const float2* tw, float2* out, cudaStream_t s) {
   const int packed = (rows + 1) / 2;
@@ -662,11 +683,20 @@ __global__ void last_pass_window(const float2* __restrict__ in,
 // mirrored, whose inverse column DFTs end in the maxima.  A maximum does
 // not depend on where a sample lies, so the output of the inverse is never
 // put in natural order.  For n <= 4096 one block holds the packed row
-// (`boot_block`); above 2^20 (beyond `block_fft`'s 1024 x 1024) the
-// radix-2 passes of `boot_stage` run instead.  K6 is the same pipeline
-// with its rows drawn by the loader (`NoiseLoad`) where K4b reads them
-// (`RowLoad`).  Bound: device memory, one read of the rows and two reads
-// and two writes of the packed buffer.
+// (`boot_block`); above 2^22 the radix-2 passes of `boot_stage` run
+// instead.  K6 is the same pipeline with its rows drawn by the loader
+// (`NoiseLoad`) where K4b reads them (`RowLoad`).  Bound: device memory,
+// one read of the rows and two reads and two writes of the packed buffer
+// (32 bytes a point of the packed rows over the split).
+//
+// The strips: up to 2^20 (n1, n2 <= 1,024) 16 columns in both column
+// passes and 16 rows in the row pass.  At 2^21 (2,048 x 1,024) and 2^22
+// (2,048 x 2,048) the host takes the widest strip of {16, 8} that holds
+// at most kElems * 1024 points and fits a block's shared memory
+// (``cuda_fft.split_strips``): the column passes 8 columns (16,384 points,
+// 164-172 KB), the row pass 16 rows at n2 = 1,024 and 8 at 2,048 (172
+// KB).  A strip of 8 columns reads 64 bytes, two 32-byte sectors, of each
+// row; of 4 it would read one, which is why the split stops at 2^22.
 
 // In place, bins q <= n/2 (at zq) and n - q (at zm; the same place for q
 // = 0 and n/2) of the packed forward spectrum -> the packed whitened
@@ -748,11 +778,12 @@ boot_block(const float2* __restrict__ s1, Load load, int rows, int n,
 
 // ---- row passes of the split (K4b's, the render's and the GCC's) ---------
 //
-// A row pass holds S = kStrip rows k1 of a packed row's pass-1 output Y
-// (n1 x n2) in a strip of shared memory, sequence stride ld = n2 + 1 (odd:
+// A row pass holds S rows k1 of a packed row's pass-1 output Y (n1 x n2)
+// in a strip of shared memory, sequence stride ld = n2 + 1 (odd:
 // conflict-free columns): block b's slot r holds row pair_row(b, r), half
 // of them the partners n1 - k1 of the other half, so that every bin's
-// mirror n - k lies in the same block.  Up to S * n2 threads.
+// mirror n - k lies in the same block.  Up to S * n2 threads.  S = kStrip
+// (16) but in K4b's and K6's row pass at n2 = 2,048, which holds 8.
 
 // Mirror pair t of a row pass's block b (t < pair_tasks(b, n2)), the maps
 // of `fft_real_rows`: bin (r, k2) of a first-half slot (row k1 < n1/2)
@@ -768,13 +799,15 @@ struct PairTask {
   int zm;
 };
 
+template <int S = palt::kStrip>
 __device__ __forceinline__ int pair_tasks(int b, int n2) {
-  return (palt::kStrip / 2) * n2 + (b == 0);
+  return (S / 2) * n2 + (b == 0);
 }
 
+template <int S = palt::kStrip>
 __device__ __forceinline__ PairTask pair_task(int t, int b, int n1, int n2,
                                               int ld) {
-  constexpr int kPairs = palt::kStrip / 2;
+  constexpr int kPairs = S / 2;
   int r = t % kPairs;
   int k2 = t / kPairs;
   int row = b * kPairs + r;
@@ -798,14 +831,15 @@ __device__ __forceinline__ PairTask pair_task(int t, int b, int n1, int n2,
   return {n1 * n2 - p, mirror, at};
 }
 
-// Strip <- rows pair_row(b, r), r < kStrip, of yc (n1 x n2), every load
-// of a thread in flight before its first store.
+// Strip <- rows pair_row(b, r), r < S, of yc (n1 x n2), every load of a
+// thread in flight before its first store.
+template <int S = palt::kStrip>
 __device__ __forceinline__ void load_rows(const float2* yc, float2* buf,
                                           int b, int n1, int n2) {
   using palt::kElems;
-  constexpr int kPairs = palt::kStrip / 2;
+  constexpr int kPairs = S / 2;
   const int ld = n2 + 1;
-  const int total = palt::kStrip * n2;
+  const int total = S * n2;
   const int shift = __ffs(n2) - 1;
   float2 v[kElems];
 #pragma unroll
@@ -824,13 +858,14 @@ __device__ __forceinline__ void load_rows(const float2* yc, float2* buf,
 
 // yc rows pair_row(b, r) <- the strip's inverse row DFTs times W_n^{-j2
 // k1} (the tables of `stage_split_tables`).
+template <int S = palt::kStrip>
 __device__ __forceinline__ void store_rows(const float2* buf, float2* yc,
                                            const float2* lo,
                                            const float2* hi, int b, int n1,
                                            int n2) {
-  constexpr int kPairs = palt::kStrip / 2;
+  constexpr int kPairs = S / 2;
   const int ld = n2 + 1;
-  const int total = palt::kStrip * n2;
+  const int total = S * n2;
   const int shift = __ffs(n2) - 1;
   for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
     const int r = idx >> shift;
@@ -842,21 +877,20 @@ __device__ __forceinline__ void store_rows(const float2* buf, float2* yc,
   }
 }
 
-// The column strip c0..c0 + kStrip - 1 of yc (n1 x n2) and its inverse
-// n1-point DFTs: buf[j1 * kStrip + s] = sample n2*j1 + c0 + s of the
-// packed inverse, unscaled (pass 1 mirrored; stw: the n1-point
-// sub-twiddles).
+// The column strip c0..c0 + S - 1 of yc (n1 x n2) and its inverse
+// n1-point DFTs: buf[j1 * S + s] = sample n2*j1 + c0 + s of the packed
+// inverse, unscaled (pass 1 mirrored; stw: the n1-point sub-twiddles).
+template <int S = palt::kStrip>
 __device__ __forceinline__ void cols_inverse(const float2* yc, float2* buf,
                                              const float2* stw, int n1,
                                              int n2, int c0) {
   using palt::kElems;
-  using palt::kStrip;
-  const int total = n1 * kStrip;
+  const int total = n1 * S;
   float2 v[kElems];
 #pragma unroll
   for (int u = 0; u < kElems; ++u) {
     const int idx = threadIdx.x + u * blockDim.x;
-    v[u] = idx < total ? yc[(size_t)(idx / kStrip) * n2 + c0 + idx % kStrip]
+    v[u] = idx < total ? yc[(size_t)(idx / S) * n2 + c0 + idx % S]
                        : make_float2(0.0f, 0.0f);
   }
 #pragma unroll
@@ -864,19 +898,20 @@ __device__ __forceinline__ void cols_inverse(const float2* yc, float2* buf,
     const int idx = threadIdx.x + u * blockDim.x;
     if (idx < total) buf[idx] = v[u];
   }
-  palt::block_fft<kStrip>(buf, kStrip, 1, n1, stw, -1.0f);
+  palt::block_fft<S>(buf, S, 1, n1, stw, -1.0f);
 }
 
-// Pass 2.  Grid (n1 / S blocks, packed rows), S = kStrip rows k1 of K4a's
-// pass 2 a block: forward row DFTs; the whitening, one task a mirror pair
-// of bins (`pair_task`), so that s1's reads run over consecutive bins;
-// inverse row DFTs; times W_n^{-j2 k1}; written back in place (the block
-// owns its rows).  Block 0 of each packed row sets its two maxima to -inf
-// for pass 3.  The rows go back whole, so the strip's width does not set
-// the length of the output's runs as in K4a's pass 2: 16 rows keep a
-// block at n2 threads, and at n2 <= 256 (kMaxThreads 256) two blocks an
-// SM with up to 128 registers a thread, against spills at 64.
-template <int kMaxThreads, int kMinBlocks>
+// Pass 2.  Grid (n1 / S blocks, packed rows), S rows k1 of K4a's pass 2 a
+// block: forward row DFTs; the whitening, one task a mirror pair of bins
+// (`pair_task`), so that s1's reads run over consecutive bins; inverse
+// row DFTs; times W_n^{-j2 k1}; written back in place (the block owns its
+// rows).  Block 0 of each packed row sets its two maxima to -inf for pass
+// 3.  The rows go back whole, so the strip's width does not set the
+// length of the output's runs as in K4a's pass 2: 16 rows keep a block at
+// n2 threads (8 rows at n2 = 2,048: 1,024 threads, 172 KB), and at n2 <=
+// 256 (kMaxThreads 256) two blocks an SM with up to 128 registers a
+// thread, against spills at 64.
+template <int kMaxThreads, int kMinBlocks, int S>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 boot_rows(const float2* __restrict__ s1, int rows, int n1, int n2, float eps,
           const float2* __restrict__ tw, float2* y, float* __restrict__ out) {
@@ -895,34 +930,34 @@ boot_rows(const float2* __restrict__ s1, int rows, int n1, int n2, float eps,
   palt::stage_twiddles(stw, tw, n2, n1);
   stage_split_tables(lo, hi, tw, n1, n2);
   float2* yc = y + (size_t)c * n;
-  load_rows(yc, buf, b, n1, n2);
-  palt::block_fft<palt::kStrip>(buf, 1, ld, n2, stw, 1.0f);
-  const int tasks = pair_tasks(b, n2);
+  load_rows<S>(yc, buf, b, n1, n2);
+  palt::block_fft<S>(buf, 1, ld, n2, stw, 1.0f);
+  const int tasks = pair_tasks<S>(b, n2);
   for (int t = threadIdx.x; t < tasks; t += blockDim.x) {
-    const PairTask p = pair_task(t, b, n1, n2, ld);
+    const PairTask p = pair_task<S>(t, b, n1, n2, ld);
     boot_pair(s1, buf + p.zq, buf + p.zm, p.q, n, eps);
   }
-  palt::block_fft<palt::kStrip>(buf, 1, ld, n2, stw, -1.0f);
-  store_rows(buf, yc, lo, hi, b, n1, n2);
+  palt::block_fft<S>(buf, 1, ld, n2, stw, -1.0f);
+  store_rows<S>(buf, yc, lo, hi, b, n1, n2);
 }
 
-// Pass 3, pass 1 mirrored.  Grid (n2 / kStrip column strips, packed
-// rows): the inverse n1-point DFTs down the strip's columns give samples
-// n2*j1 + j2 of the packed inverse; the block's maxima of their real and
-// imaginary parts, times 1/n, go into out[2c] and out[2c + 1]
+// Pass 3, pass 1 mirrored.  Grid (n2 / S column strips, packed rows),
+// pass 1's S: the inverse n1-point DFTs down the strip's columns give
+// samples n2*j1 + j2 of the packed inverse; the block's maxima of their
+// real and imaginary parts, times 1/n, go into out[2c] and out[2c + 1]
 // (`atomic_max_float`).
+template <int S>
 __global__ void __launch_bounds__(1024)
 boot_cols(const float2* __restrict__ y, int rows, int n1, int n2,
           const float2* __restrict__ tw, float* out) {
-  using palt::kStrip;
   float2* stw = palt::fft_shared();
   float2* buf = stw + (n1 >> 1);
-  float* red = reinterpret_cast<float*>(buf + n1 * kStrip);
+  float* red = reinterpret_cast<float*>(buf + n1 * S);
   const int n = n1 * n2;
   const int c = blockIdx.y;
   palt::stage_twiddles(stw, tw, n1, n2);
-  cols_inverse(y + (size_t)c * n, buf, stw, n1, n2, blockIdx.x * kStrip);
-  const int total = n1 * kStrip;
+  cols_inverse<S>(y + (size_t)c * n, buf, stw, n1, n2, blockIdx.x * S);
+  const int total = n1 * S;
   float mre = -INFINITY;
   float mim = -INFINITY;
   for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
@@ -938,14 +973,39 @@ boot_cols(const float2* __restrict__ y, int rows, int n1, int n2,
   }
 }
 
+// K4b's and K6's row pass, strips of S rows.
+template <int S>
+cudaError_t boot_rows_launch(const float2* s1, int rows, int n1, int n2,
+                             float eps, const float2* tw, float2* buf,
+                             float* out, cudaStream_t s) {
+  const dim3 grid(n1 / S, (rows + 1) / 2);
+  const int threads = palt::fft_threads(n2, S);
+  const int smem = (n2 / 2 + n1 + n2 + S * (n2 + 1)) * (int)sizeof(float2);
+  cudaError_t err;
+  if constexpr (S == palt::kStrip) {  // 8 rows only at n2 = 2,048
+    if (n2 <= 256) {
+      err = palt::allow_smem<boot_rows<256, 2, S>>();
+      if (err != cudaSuccess) return err;
+      boot_rows<256, 2, S><<<grid, threads, smem, s>>>(s1, rows, n1, n2, eps,
+                                                       tw, buf, out);
+      return cudaGetLastError();
+    }
+  }
+  err = palt::allow_smem<boot_rows<1024, 1, S>>();
+  if (err != cudaSuccess) return err;
+  boot_rows<1024, 1, S><<<grid, threads, smem, s>>>(s1, rows, n1, n2, eps, tw,
+                                                    buf, out);
+  return cudaGetLastError();
+}
+
 // K4b / K6 on the split (n1 > 1) or in one block (n1 = 1) for rows given
-// by load; buf (ceil(rows/2), n) is the split's scratch.
+// by load; buf (ceil(rows/2), n) is the split's scratch.  cs: the columns
+// of a column pass's strip, rs: the rows of the row pass's (16 or 8).
 template <class Load>
 cudaError_t boot_split(const float2* s1, Load load, int rows, int n, int n1,
-                       float eps, const float2* tw, float2* buf, float* out,
-                       cudaStream_t s) {
+                       int cs, int rs, float eps, const float2* tw,
+                       float2* buf, float* out, cudaStream_t s) {
   using palt::fft_threads;
-  using palt::kStrip;
   const int packed = (rows + 1) / 2;
   const int red = 16 * (int)sizeof(float2);  // block_max's 32 floats
   cudaError_t err;
@@ -960,31 +1020,25 @@ cudaError_t boot_split(const float2* s1, Load load, int rows, int n, int n1,
     return cudaGetLastError();
   }
   const int n2 = n / n1;
-  err = cols_launch(load, packed, n1, n2, tw, buf, s);
+  err = with_split_strip(cs, [&](auto strip) {
+    return cols_launch<decltype(strip)::value>(load, packed, n1, n2, tw, buf,
+                                               s);
+  });
   if (err != cudaSuccess) return err;
-  const dim3 grid2(n1 / kStrip, packed);
-  const int threads2 = fft_threads(n2, kStrip);
-  const int smem2 =
-      (n2 / 2 + n1 + n2 + kStrip * (n2 + 1)) * (int)sizeof(float2);
-  if (n2 <= 256) {
-    err = palt::allow_smem<boot_rows<256, 2>>();
-    if (err != cudaSuccess) return err;
-    boot_rows<256, 2><<<grid2, threads2, smem2, s>>>(s1, rows, n1, n2, eps,
-                                                     tw, buf, out);
-  } else {
-    err = palt::allow_smem<boot_rows<1024, 1>>();
-    if (err != cudaSuccess) return err;
-    boot_rows<1024, 1><<<grid2, threads2, smem2, s>>>(s1, rows, n1, n2, eps,
-                                                      tw, buf, out);
-  }
-  err = cudaGetLastError();
+  err = with_split_strip(rs, [&](auto strip) {
+    return boot_rows_launch<decltype(strip)::value>(s1, rows, n1, n2, eps, tw,
+                                                    buf, out, s);
+  });
   if (err != cudaSuccess) return err;
-  err = palt::allow_smem<boot_cols>();
-  if (err != cudaSuccess) return err;
-  boot_cols<<<dim3(n2 / kStrip, packed), fft_threads(n1, kStrip),
-              (n1 / 2 + n1 * kStrip) * (int)sizeof(float2) + red, s>>>(
-      buf, rows, n1, n2, tw, out);
-  return cudaGetLastError();
+  return with_split_strip(cs, [&](auto strip) {
+    constexpr int S = decltype(strip)::value;
+    const cudaError_t e = palt::allow_smem<boot_cols<S>>();
+    if (e != cudaSuccess) return e;
+    boot_cols<S><<<dim3(n2 / S, packed), fft_threads(n1, S),
+                   (n1 / 2 + n1 * S) * (int)sizeof(float2) + red, s>>>(
+        buf, rows, n1, n2, tw, out);
+    return cudaGetLastError();
+  });
 }
 
 // In place: packed row spectra -> packed whitened cross-spectra against s1
@@ -1031,7 +1085,7 @@ __global__ void last_pass_max(const float2* __restrict__ in,
   }
 }
 
-// ---- K6 above 2^20: the draws in the first radix-2 pass -----------------
+// ---- K6 above 2^22: the draws in the first radix-2 pass -----------------
 
 // The first forward Stockham pass (p = 1, twiddle 1: y[2i] = x[i] +
 // x[i + n/2], y[2i + 1] = their difference) over packed row c = draws 2c
@@ -2252,7 +2306,7 @@ void window_stage(const float2* spec, int scenes, int mics,
                                                 1.0f / (float)n, win, stats);
 }
 
-// K6's pipeline (and K4b's above 2^20) on the radix-2 passes, after buf0
+// K6's pipeline (and K4b's above 2^22) on the radix-2 passes, after buf0
 // holds the rows (packed two to a complex row) with their first `done`
 // forward passes applied: the other
 // forward passes, whitening against s1 in place, the packed inverse with
@@ -2283,13 +2337,15 @@ void boot_stage(const float2* s1, int rows, int n, float eps, int done,
 extern "C" {
 
 // K4a: x (rows, len) -> out (rows, n/2+1) complex, natural order.  n1 = 1:
-// one block per packed row (n <= 4096); n1 = 0 (n > 2^20): the packed
+// one block per packed row (n <= 4096); n1 = 0 (n > 2^22): the packed
 // rows, log2(n) radix-2 passes through buf's two halves of ceil(rows/2)
 // rows each, and `split_spectra`; else the two passes of the four-step
-// split n = n1 * n2 through buf (ceil(rows/2), n) complex, pass 2 with
-// strips of s2 (16, 32 or 64) rows.
-int palt_fft_real(const float* x, int rows, int len, int n, int n1, int s2,
-                  const float2* tw, float2* buf, float2* out, void* stream) {
+// split n = n1 * n2 through buf (ceil(rows/2), n) complex, pass 1 with
+// strips of cs (16 or 8) columns, pass 2 with strips of s2 (8, 16, 32 or
+// 64) rows.
+int palt_fft_real(const float* x, int rows, int len, int n, int n1, int cs,
+                  int s2, const float2* tw, float2* buf, float2* out,
+                  void* stream) {
   using palt::fft_threads;
   cudaStream_t s = (cudaStream_t)stream;
   const int packed = (rows + 1) / 2;
@@ -2315,8 +2371,10 @@ int palt_fft_real(const float* x, int rows, int len, int n, int n1, int s2,
     return 0;
   }
   const int n2 = n / n1;
-  const cudaError_t err =
-      cols_launch(RowLoad{x, rows, len}, packed, n1, n2, tw, buf, s);
+  const cudaError_t err = with_split_strip(cs, [&](auto strip) {
+    return cols_launch<decltype(strip)::value>(RowLoad{x, rows, len}, packed,
+                                               n1, n2, tw, buf, s);
+  });
   if (err != cudaSuccess) return (int)err;
   return fft_real_rows_launch(buf, rows, n1, n2, s2, tw, out, s);
 }
@@ -2405,12 +2463,14 @@ int palt_gcc_windowed(const float* x, int scenes, int mics, int len, int n,
 // K4b: s1 (n/2+1) complex, rows x (rows, len) -> out (rows,) maxima of the
 // PHAT correlations between s1's signal and each row.  n1 = 1: one block
 // per packed row (n <= 4096), no buffer; n1 = 0: the radix-2 passes (n >
-// 2^20) through buf's two halves of ceil(rows/2) rows each; else the three
+// 2^22) through buf's two halves of ceil(rows/2) rows each; else the three
 // launches of the split n = n1 * n2 through buf (ceil(rows/2), n) in
-// place.
+// place, the column passes with strips of cs columns and the row pass
+// with strips of rs rows (16 or 8 each).
 int palt_bootstrap_peaks(const float2* s1, const float* x, int rows, int len,
-                         int n, int n1, float eps, const float2* tw,
-                         float2* buf, float* out, void* stream) {
+                         int n, int n1, int cs, int rs, float eps,
+                         const float2* tw, float2* buf, float* out,
+                         void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n1 == 0) {
     const int packed = (rows + 1) / 2;
@@ -2422,19 +2482,19 @@ int palt_bootstrap_peaks(const float2* s1, const float* x, int rows, int len,
     PALT_CHECK();
     return 0;
   }
-  return (int)boot_split(s1, RowLoad{x, rows, len}, rows, n, n1, eps, tw,
-                         buf, out, s);
+  return (int)boot_split(s1, RowLoad{x, rows, len}, rows, n, n1, cs, rs, eps,
+                         tw, buf, out, s);
 }
 
 // K6: s1 (n/2+1) complex, seeds (rows, 2) int32 -> out (rows,) maxima of
 // the PHAT correlations between s1's signal and `rows` in-kernel uniform
 // noise draws of n_samp samples each, zero-padded to n: K4b's schedules
-// and buffer (n1 and buf as there) with the draws made by the loader; the
-// passes (n1 = 0) draw in their first pass.
+// and buffer (n1, cs, rs and buf as there) with the draws made by the
+// loader; the passes (n1 = 0) draw in their first pass.
 int palt_noise_bootstrap_peaks(const float2* s1, const int* seeds, int rows,
-                               int n_samp, int n, int n1, float eps,
-                               const float2* tw, float2* buf, float* out,
-                               void* stream) {
+                               int n_samp, int n, int n1, int cs, int rs,
+                               float eps, const float2* tw, float2* buf,
+                               float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n1 == 0) {
     const int packed = (rows + 1) / 2;
@@ -2446,8 +2506,8 @@ int palt_noise_bootstrap_peaks(const float2* s1, const int* seeds, int rows,
     PALT_CHECK();
     return 0;
   }
-  return (int)boot_split(s1, NoiseLoad{seeds, rows, n_samp}, rows, n, n1,
-                         eps, tw, buf, out, s);
+  return (int)boot_split(s1, NoiseLoad{seeds, rows, n_samp}, rows, n, n1, cs,
+                         rs, eps, tw, buf, out, s);
 }
 
 // K7: z (count) complex -> out (count) = z / (|z| + eps); out may be z.

@@ -18,7 +18,7 @@ delay_sum             bfly_delay_sum (:1851)                 memory: 1 or 4 laun
 whiten                pallas_kernels.phat_whiten_planes (:34) memory: 16 B/bin
 ===================== ====================================== ==================
 
-(*) Above 2^20 points K4a runs the radix-2 passes: the packing, log2(nfft)
+(*) Above 2^22 points K4a runs the radix-2 passes: the packing, log2(nfft)
 passes and the split into the two spectra, 2 + log2(nfft) launches.
 
 The three kernels of K10, the TPU package's A/B tool of FFT schedules
@@ -35,7 +35,9 @@ of sequences in shared memory for all of its radix-16 stages, and a long
 row is a four-step split of two such launches (``fft_real_split``; the
 bootstrap, the render and the GCCs run it forward and back in three, the
 middle launch holding rows for both directions; K9, whose input is
-spectra, in two), so a transform reads and writes each point once per
+spectra, in two; up to 2^22 for K4a, K4b and K6, whose strips narrow to
+8 at 2,048, ``split_strips``, and up to 2^20 for the others), so a
+transform reads and writes each point once per
 launch (16 bytes a complex point) and is bound by device memory at
 that.  Up to 4,096 points the bootstraps, K9, the render (a packed base
 row a block) and the all-pairs and windowed GCCs (a scene a block, up to
@@ -45,7 +47,8 @@ passes over rows in device memory, one launch and 16 bytes a point per
 pass, about 16·log2(nfft) bytes per point and transform, and fuse their
 first or last pass into a prologue or epilogue: every stage where neither
 one block nor its split's strips fit (``scene_stages``, ``gcc_schedule``),
-and every kernel above 2^20.  The design keeps the rest of the work out of device memory where
+K1, K2, K3, K5 and K9 above 2^20 and K4a, K4b and K6 above 2^22.  The
+design keeps the rest of the work out of device memory where
 the TPU kernels did: real rows are packed two to a complex transform, the
 whitening / ramp synthesis runs in one pass over the spectra, two real
 results share each inverse, and the bootstrap's maxima and the windowed
@@ -89,12 +92,20 @@ from . import signal as sig_ops
 
 PHAT_EPS = 1e-10
 # K4a: one block holds the packed row up to this length; the four-step
-# split of two on-chip transforms reaches 1024 x 1024.
+# split of two on-chip transforms reaches 2048 x 2048 for K4a, K4b and K6
+# (FFT_REAL_MAX), with strips of 8 at 2,048 (``split_strips``), and 1024 x
+# 1024 for K1, K2, K3, K5 and K9 (STAGE_SPLIT_MAX), whose column strips
+# hold 16 columns.
 FFT_REAL_ONE_BLOCK = 4096
-FFT_REAL_MAX = 1 << 20
-# Rows a split row pass holds (kStrip, csrc/fft.cuh), and the shared
+FFT_REAL_MAX = 1 << 22
+STAGE_SPLIT_MAX = 1 << 20
+# Rows a split row pass holds (kStrip, csrc/fft.cuh), the strips K4a's,
+# K4b's and K6's split may take, widest first, the points one block's
+# strip transform holds (kElems * 1024, ``block_fft``) and the shared
 # memory one block may opt in to on an H100 (227 KB).
 ROW_STRIP = 16
+SPLIT_STRIPS = (16, 8)
+BLOCK_POINTS = 16 * 1024
 SMEM_OPTIN = 232448
 
 #: Kernel launches per wrapper since the last ``reset_launches()``.
@@ -174,13 +185,15 @@ def _library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_library_path()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         signatures = {
-            "palt_fft_real": [p, i, i, i, i, i, p, p, p, p],
-            "palt_noise_bootstrap_peaks": [p, p, i, i, i, i, f, p, p, p, p],
+            "palt_fft_real": [p, i, i, i, i, i, i, p, p, p, p],
+            "palt_noise_bootstrap_peaks": [p, p, i, i, i, i, i, i, f, p, p,
+                                           p, p],
             "palt_whiten": [p, ctypes.c_longlong, f, p, p],
             "palt_whitened_corr": [p, p, i, i, i, p, f, p, p, p, p, p],
             "palt_gcc_all_pairs": [p, i, i, i, i, i, p, p, i, p, f, p, p, p,
                                    p, p, p, p],
-            "palt_bootstrap_peaks": [p, p, i, i, i, i, f, p, p, p, p],
+            "palt_bootstrap_peaks": [p, p, i, i, i, i, i, i, f, p, p, p,
+                                     p],
             "palt_gcc_windowed": [p, i, i, i, i, i, p, p, i, p, f, i, p, p,
                                   p, p, p, p, p, p, p, p, p],
             "palt_delay_sum": [p, i, i, p, p, i, i, i, i, i, p, i, p, p, p,
@@ -288,8 +301,14 @@ def _row_chunks(rows: int):
 def _split_n1(nfft: int) -> int:
     """n1 of K4a's, K4b's and K6's schedule at nfft: 1, one block, up to
     ``FFT_REAL_ONE_BLOCK``; the four-step split of ``fft_real_split`` up to
-    ``FFT_REAL_MAX``; 0, the radix-2 passes, above."""
+    ``FFT_REAL_MAX`` (2^22); 0, the radix-2 passes, above."""
     return fft_real_split(nfft)[0] if nfft <= FFT_REAL_MAX else 0
+
+
+def _split_strips(n1: int, nfft: int):
+    """The strips K4a's, K4b's and K6's schedule n1 passes to its entry
+    point: ``split_strips`` on the split, (0, 0) (unused) elsewhere."""
+    return split_strips(n1, nfft // n1) if n1 > 1 else (0, 0)
 
 
 def _pass_scratch(n1: int, packed: int, nfft: int, device):
@@ -326,8 +345,10 @@ def fft_real_plain(x: torch.Tensor, nfft: int) -> torch.Tensor:
 def fft_real_split(nfft: int):
     """(n1, n2) of K4a's four-step split nfft = n1 * n2: (1, nfft) up to
     ``FFT_REAL_ONE_BLOCK`` (one block holds the packed row), else n2 =
-    2^floor(log2(nfft) / 2) and n1 = nfft / n2 >= n2, both at most 1024
-    (one block's strip, ``block_fft``)."""
+    2^floor(log2(nfft) / 2) and n1 = nfft / n2 >= n2: both at most 1024 up
+    to ``STAGE_SPLIT_MAX`` (2^20), 2048 x 1024 at 2^21 and 2048 x 2048 at
+    ``FFT_REAL_MAX`` (2^22), where K4a's, K4b's and K6's strips narrow to
+    8 (``split_strips``)."""
     if nfft <= FFT_REAL_ONE_BLOCK:
         return 1, nfft
     n2 = 1 << ((nfft.bit_length() - 1) // 2)
@@ -339,19 +360,45 @@ def fft_real_rows_strip(n2: int, packed: int) -> int:
     n1 - k1 of the other half; its output runs of consecutive bins are half
     as long.  64 (n2 <= 256) or 32 (n2 <= 512), the most one block's shared
     memory holds, where there are enough packed rows (>= 64) that fewer
-    blocks still fill the card; else 16 (a single row's call is bound by
+    blocks still fill the card; 8 at n2 = 2,048 (2^22), where 16 rows would
+    pass ``BLOCK_POINTS``; else 16 (a single row's call is bound by
     latency, not bytes)."""
+    if n2 * ROW_STRIP > BLOCK_POINTS:
+        return 8
     if packed < 64 or n2 > 512:
         return 16
     return 64 if n2 <= 256 else 32
 
 
-def _row_pass_smem(n1: int, n2: int, strips: int) -> int:
+def _row_pass_smem(n1: int, n2: int, strips: int,
+                   strip: int = ROW_STRIP) -> int:
     """Bytes of shared memory of a split row pass (``render_rows``,
-    ``gcc_rows``) that holds ``strips`` strips of ``ROW_STRIP`` rows of n2
-    points (sequence stride n2 + 1) and the twiddle tables (n2/2 + n1 +
-    n2 complex)."""
-    return 8 * (n2 // 2 + n1 + n2 + strips * ROW_STRIP * (n2 + 1))
+    ``gcc_rows``, ``boot_rows``) that holds ``strips`` strips of ``strip``
+    rows of n2 points (sequence stride n2 + 1) and the twiddle tables (n2/2
+    + n1 + n2 complex)."""
+    return 8 * (n2 // 2 + n1 + n2 + strips * strip * (n2 + 1))
+
+
+def split_strips(n1: int, n2: int):
+    """(columns a strip of a column pass holds, rows a strip of the row
+    pass holds) on K4a's, K4b's and K6's split n1 x n2: for each, the
+    widest of ``SPLIT_STRIPS`` (16, 8) whose strip holds at most
+    ``BLOCK_POINTS`` points (``block_fft``'s kElems x 1024) and whose pass
+    fits one block's shared memory (``SMEM_OPTIN``): the column pass's
+    n1/2 sub-twiddles, n1 + n2 split tables and n1 x S strip
+    (``fft_real_cols``; ``boot_cols`` holds less), and ``_row_pass_smem``
+    of one strip (``boot_rows``; K4a's own row pass takes
+    ``fft_real_rows_strip``).  (16, 16) up to 1024 x 1024, so every
+    shape up to 2^20 keeps its strips; (8, 16) at 2048 x 1024 (2^21) and
+    (8, 8) at 2048 x 2048 (2^22): 164-172 KB a block."""
+    def widest(length, smem):
+        for strip in SPLIT_STRIPS:
+            if length * strip <= BLOCK_POINTS and smem(strip) <= SMEM_OPTIN:
+                return strip
+        raise ValueError(f"no strip of {SPLIT_STRIPS} fits the split "
+                         f"{n1} x {n2}")
+    return (widest(n1, lambda s: 8 * (n1 // 2 + n1 + n2 + n1 * s)),
+            widest(n2, lambda s: _row_pass_smem(n1, n2, 1, s)))
 
 
 def _gcc_block_smem(nfft: int, mics: int) -> int:
@@ -375,10 +422,12 @@ def scene_stages(nfft: int, mics: int):
     shared memory (``SMEM_OPTIN``); the render's row pass holds two strips
     (the base rows and one output row at a time), the GCC's one strip for
     each packed mic row a scene's mics can span ((mics + 1) // 2) and one
-    for the output.  Else 0, the radix-2 passes."""
+    for the output.  Else 0, the radix-2 passes, and so above
+    ``STAGE_SPLIT_MAX`` (2^20): their column passes keep strips of 16
+    columns, which stop at n1 = 1,024."""
     if nfft <= FFT_REAL_ONE_BLOCK:
         return 1, (1 if _gcc_block_smem(nfft, mics) <= SMEM_OPTIN else 0)
-    if nfft > FFT_REAL_MAX:
+    if nfft > STAGE_SPLIT_MAX:
         return 0, 0
     n1, n2 = fft_real_split(nfft)
     render = n1 if _row_pass_smem(n1, n2, 2) <= SMEM_OPTIN else 0
@@ -399,9 +448,10 @@ def gcc_schedule(nfft: int, mics: int) -> int:
 def corr_schedule(nfft: int) -> int:
     """n1 of K9's schedule at nfft: 1, one block a packed row
     (``corr_block``), up to ``FFT_REAL_ONE_BLOCK``; the four-step split of
-    ``fft_real_split`` up to ``FFT_REAL_MAX`` (its row pass holds one strip,
-    which fits at every split); 0, the radix-2 passes, above."""
-    return _split_n1(nfft)
+    ``fft_real_split`` up to ``STAGE_SPLIT_MAX`` (2^20; its row pass holds
+    one strip, which fits at every split, and its column pass strips of 16
+    columns); 0, the radix-2 passes, above."""
+    return fft_real_split(nfft)[0] if nfft <= STAGE_SPLIT_MAX else 0
 
 
 def _copies(n1: int) -> int:
@@ -444,14 +494,15 @@ def fft_real(x: torch.Tensor, nfft: int) -> torch.Tensor:
     Replaces ``bfly_fft_real`` (pyaudiolocalization_tpu/ops/pallas_fft.py:
     685), whose output is an opaque bit-reversed (N2, 128) plane layout.
     Two rows share each complex transform.  By length (``_split_n1``): up
-    to nfft = 4096 one launch, a block per packed row; up to 2^20 a
+    to nfft = 4096 one launch, a block per packed row; up to 2^22 a
     four-step split (``fft_real_split``) of two on-chip launches, the
-    columns' DFTs with the twiddle, then the rows' DFTs with the two real
-    spectra split in the epilogue; above, the packed rows, the log2(nfft)
-    radix-2 passes through device memory (one launch a pass) and the split
-    into the two spectra.  Bound by device memory: the rows' read, one
-    write and one read of the packed intermediate (a pass) and the
-    spectra's write.  A batch beyond ``ROW_CHUNK`` rows launches in
+    columns' DFTs with the twiddle (strips of 16 columns, 8 at n1 = 2,048:
+    ``split_strips``), then the rows' DFTs with the two real spectra split
+    in the epilogue (``fft_real_rows_strip``); above, the packed rows, the
+    log2(nfft) radix-2 passes through device memory (one launch a pass)
+    and the split into the two spectra.  Bound by device memory: the rows'
+    read, one write and one read of the packed intermediate (a pass) and
+    the spectra's write.  A batch beyond ``ROW_CHUNK`` rows launches in
     chunks."""
     if _use_plain(x):
         return fft_real_plain(x, nfft)
@@ -468,13 +519,14 @@ def fft_real(x: torch.Tensor, nfft: int) -> torch.Tensor:
                       device=dev)
     n1 = _split_n1(nfft)
     n2 = nfft // n1 if n1 else nfft
+    cols = _split_strips(n1, nfft)[0]
     chunks = _row_chunks(rows)
     packed = (chunks[0][1] + 1) // 2 if chunks else 0
     buf = _pass_scratch(n1, packed, nfft, dev)
     tw = _twiddles(nfft, str(dev))
     for r0, r1 in chunks:
         _launch("fft_real", dev, lib.palt_fft_real, x[r0].data_ptr(),
-                r1 - r0, length, nfft, n1,
+                r1 - r0, length, nfft, n1, cols,
                 fft_real_rows_strip(n2, (r1 - r0 + 1) // 2), tw.data_ptr(),
                 _ptr(buf), out[r0].data_ptr())
     return out
@@ -510,8 +562,8 @@ def whitened_corr(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
     row (bins 0..n/2, mirrored, real DC and Nyquist), the packed inverse,
     1/n and the split into the two rows.  By length (``corr_schedule``):
     up to ``FFT_REAL_ONE_BLOCK`` (4,096) one launch, a block per packed row
-    holding it in shared memory, no scratch; up to ``FFT_REAL_MAX`` (2^20)
-    two launches over one scratch buffer on K4b's four-step split — a row
+    holding it in shared memory, no scratch; up to ``STAGE_SPLIT_MAX``
+    (2^20) two launches over one scratch buffer on K4b's four-step split — a row
     pass that gathers each strip's bins of ``a`` and ``b``, whitens and
     runs the inverse row DFTs, and K1's column pass, whose inverse column
     DFTs write the rows in natural order; above, the radix-2 passes.
@@ -791,18 +843,20 @@ def bootstrap_peaks(s1: torch.Tensor, rows: torch.Tensor, nfft: int,
 
     - nfft <= ``FFT_REAL_ONE_BLOCK`` (4096): one launch, a block per
       packed row holding every step in shared memory, no scratch;
-    - up to ``FFT_REAL_MAX`` (2^20): three launches over one scratch
+    - up to ``FFT_REAL_MAX`` (2^22): three launches over one scratch
       buffer, K4a's split nfft = n1 * n2 (``fft_real_split``) forward and
-      back: K4a's column pass; a row pass (16 rows a block) that runs the
-      forward row DFTs, the whitening, the inverse row DFTs and the
-      inverse twiddle in shared memory and writes back in place; and a
-      column pass whose inverse column DFTs end in the maxima;
+      back: K4a's column pass; a row pass (16 rows a block, 8 at n2 =
+      2,048) that runs the forward row DFTs, the whitening, the inverse
+      row DFTs and the inverse twiddle in shared memory and writes back in
+      place; and a column pass whose inverse column DFTs end in the
+      maxima (the column passes' strips 16 columns, 8 at n1 = 2,048:
+      ``split_strips``);
     - above: the radix-2 passes through device memory (one launch a
       pass), ping-ponging in a scratch buffer of twice the packed rows.
 
     Bound by device memory: the rows' read and, on the split, two reads
-    and two writes of the packed buffer.  A batch beyond ``ROW_CHUNK``
-    rows launches in chunks."""
+    and two writes of the packed buffer (32 bytes a point of the packed
+    rows).  A batch beyond ``ROW_CHUNK`` rows launches in chunks."""
     if _use_plain(s1, rows):
         return bootstrap_peaks_plain(s1, rows, nfft, eps)
     _check_contiguous("bootstrap_peaks", s1, rows)
@@ -818,13 +872,15 @@ def bootstrap_peaks(s1: torch.Tensor, rows: torch.Tensor, nfft: int,
     dev = rows.device
     out = torch.empty(num, dtype=torch.float32, device=dev)
     n1 = _split_n1(nfft)
+    cols, strip = _split_strips(n1, nfft)
     chunks = _row_chunks(num)
     buf = _pass_scratch(n1, (chunks[0][1] + 1) // 2, nfft, dev)
     tw = _twiddles(nfft, str(dev))
     for r0, r1 in chunks:
         _launch("bootstrap_peaks", dev, lib.palt_bootstrap_peaks,
                 s1.data_ptr(), rows[r0].data_ptr(), r1 - r0, length, nfft,
-                n1, eps, tw.data_ptr(), _ptr(buf), out[r0:].data_ptr())
+                n1, cols, strip, eps, tw.data_ptr(), _ptr(buf),
+                out[r0:].data_ptr())
     return out
 
 
@@ -850,11 +906,11 @@ def noise_bootstrap_peaks(s1: torch.Tensor, seeds: torch.Tensor,
 
     Replaces ``bfly_noise_bootstrap_peaks`` (pyaudiolocalization_tpu/ops/
     pallas_fft.py:1326): K4b's schedules (``bootstrap_peaks``: one launch
-    up to 4096, three on the four-step split up to 2^20, the radix-2
-    passes above) with its row load replaced by the draw, made where the
-    first forward step reads the point (two draws per complex transform),
-    so the rows never exist in device memory and no permutation is
-    sorted.  The draws and everything after them are K4b's, so the peaks
+    up to 4096, three on the four-step split up to 2^22 with K4b's strips,
+    the radix-2 passes above) with its row load replaced by the draw, made
+    where the first forward step reads the point (two draws per complex
+    transform), so the rows never exist in device memory and no
+    permutation is sorted.  The draws and everything after them are K4b's, so the peaks
     equal ``bootstrap_peaks`` of ``noise_ops.uniform(seeds, n_samp)``
     bit for bit on the split and in one block.  Bound by device memory
     (one write and two reads of the packed buffer on the split) and the
@@ -875,14 +931,15 @@ def noise_bootstrap_peaks(s1: torch.Tensor, seeds: torch.Tensor,
     dev = s1.device
     out = torch.empty(num, dtype=torch.float32, device=dev)
     n1 = _split_n1(nfft)
+    cols, strip = _split_strips(n1, nfft)
     chunks = _row_chunks(num)
     buf = _pass_scratch(n1, (chunks[0][1] + 1) // 2, nfft, dev)
     tw = _twiddles(nfft, str(dev))
     for r0, r1 in chunks:
         _launch("noise_bootstrap_peaks", dev,
                 lib.palt_noise_bootstrap_peaks, s1.data_ptr(),
-                seeds[r0].data_ptr(), r1 - r0, n_samp, nfft, n1, eps,
-                tw.data_ptr(), _ptr(buf), out[r0:].data_ptr())
+                seeds[r0].data_ptr(), r1 - r0, n_samp, nfft, n1, cols, strip,
+                eps, tw.data_ptr(), _ptr(buf), out[r0:].data_ptr())
     return out
 
 

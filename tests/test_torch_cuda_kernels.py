@@ -85,13 +85,17 @@ def test_fft_real_kernel_matches_plain(cuda, rows, length, nfft):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,length,nfft", [
-    (2, 1_046_019, 1 << 21), (3, 1_046_019, 1 << 21), (1, 2_000_000, 1 << 22)])
+    (2, 1_046_019, 1 << 21), (3, 1_046_019, 1 << 21), (1, 2_000_000, 1 << 22),
+    (3, 4_000_000, 1 << 23)])
 def test_fft_real_runs_the_passes_above_2_20(cuda, rows, length, nfft):
-    """Above the largest four-step split (2^20) K4a packs the rows, runs
-    the radix-2 passes (one launch a pass) and splits the two spectra:
-    against its twin at 2^21 (a 23.7 s recording at 44.1 kHz, the
-    bootstrap's spectrum) and 2^22.  Relative to the spectrum's peak, as
-    the split: log2(nfft) float32 passes in the kernel and in cuFFT."""
+    """Above 2^20 K4a runs the four-step split with strips of 8 columns
+    (``split_strips``) at 2^21 (a 23.7 s recording at 44.1 kHz, the
+    bootstrap's spectrum; 2,048 x 1,024) and 2^22 (2,048 x 2,048, pass 2's
+    strips 8 rows), and above the largest split (2^22) packs the rows,
+    runs the radix-2 passes (one launch a pass) and splits the two
+    spectra (2^23): each against its twin, relative to the spectrum's
+    peak."""
+    assert cf._split_n1(nfft) == (2048 if nfft <= cf.FFT_REAL_MAX else 0)
     x = torch.randn((rows, length), generator=_gen(cuda), device=cuda)
     before = cf.LAUNCHES["fft_real"]
     got = cf.fft_real(x, nfft)
@@ -106,8 +110,8 @@ def test_fft_real_runs_the_passes_above_2_20(cuda, rows, length, nfft):
 @pytest.mark.parametrize("mode", ["permutation", "noise"])
 def test_bootstrap_significance_at_2_21_on_the_card(cuda, mode):
     """The api's bootstrap of a 600,000-sample pair at nfft 2^21 (K4a and
-    K4b or K6 on their radix-2 passes) against the twins on the same draws:
-    the permuted rows, or the noise draws' seeds."""
+    K4b or K6 on the split, 2,048 x 1,024) against the twins on the same
+    draws: the permuted rows, or the noise draws' seeds."""
     g = _gen(cuda, 3)
     sig1 = torch.randn(600_000, generator=g, device=cuda)
     sig2 = torch.randn(600_000, generator=g, device=cuda)
@@ -168,7 +172,10 @@ def test_device_kernels_per_call(cuda, tmp_path):
     the inverse column pass, the finalize), K2 three (the column pass, the
     row pass with the cross-spectra, the column pass with the window and
     the statistics) and K5 seven (K3's and K2's without K2's separate
-    signals); K10a and K10b one kernel per transform, K10c one a call."""
+    signals); K10a and K10b one kernel per transform, K10c one a call.
+    Above 2^20 (two rows of a 23.7 s pair at 2^21, three at 2^22) K4a
+    runs its two kernels with strips of 8 columns and K4b and K6 their
+    three, not the radix-2 passes."""
     from pyaudiolocalization_tpu_torch.ops import rowdft as rd
     x = torch.randn((2, 44100), generator=_gen(cuda), device=cuda)
     names = _device_kernels(lambda: cf.fft_real(x, 65536),
@@ -203,6 +210,26 @@ def test_device_kernels_per_call(cuda, tmp_path):
         lambda: cf.noise_bootstrap_peaks(s1, seeds[:999], 1500, 4096),
         tmp_path / "k6_small.json")
     assert len(names) == 1 and "boot_block" in names[0], names
+    for rows, length, nfft in ((2, 1_046_019, 1 << 21),
+                               (3, 2_000_000, 1 << 22)):
+        xl = torch.randn((rows, length), generator=_gen(cuda),
+                         device=cuda)
+        names = _device_kernels(lambda: cf.fft_real(xl, nfft),
+                                tmp_path / "k4a_long.json")
+        assert len(names) == 2, (nfft, names)
+        assert "fft_real_cols" in names[0] and "fft_real_rows" in names[1]
+        s1 = cf.fft_real(xl[:1], nfft)[0].contiguous()
+        names = _device_kernels(lambda: cf.bootstrap_peaks(s1, xl, nfft),
+                                tmp_path / "k4b_long.json")
+        assert len(names) == 3, (nfft, names)
+        assert ("fft_real_cols" in names[0] and "boot_rows" in names[1]
+                and "boot_cols" in names[2]), names
+        names = _device_kernels(
+            lambda: cf.noise_bootstrap_peaks(s1, seeds[:rows], length, nfft),
+            tmp_path / "k6_long.json")
+        assert len(names) == 3, (nfft, names)
+        assert "NoiseLoad" in names[0] and "boot_cols" in names[2], names
+        del xl
     base, tau, gains, snr, sd, fade = _scene_inputs(cuda, 4, 4, 1, 44356,
                                                     44100)
     pi, pj = _pairs(4)
@@ -252,12 +279,14 @@ def test_device_kernels_per_call(cuda, tmp_path):
 @pytest.mark.parametrize("rows,length,nfft", [
     (999, 3000, 4096), (1, 100, 128), (64, 44100, 65536), (2, 44100, 65536),
     (1000, 44100, 131072), (1, 3, 4), (3, 200000, 1 << 18),
-    (3, 600000, 1 << 20), (3, 100000, 1 << 21)])
+    (3, 600000, 1 << 20), (3, 100000, 1 << 21), (64, 1_046_019, 1 << 21),
+    (3, 2_000_000, 1 << 22), (3, 100000, 1 << 23)])
 def test_bootstrap_peaks_kernel_matches_plain(cuda, rows, length, nfft):
     """One block (nfft <= 4096), the three launches of the split (n2 =
     256 at 65,536 and 131,072 with 2 and 1000 rows, n2 = 512 at 2^18 and
-    1024 x 1024 at 2^20, whose row pass runs 512 and 1024 threads) and the
-    radix-2 passes above 2^20."""
+    1024 x 1024 at 2^20, whose row pass runs 512 and 1024 threads; at 2^21
+    strips of 8 columns, at 2^22 8 columns and 8 rows) and the radix-2
+    passes above 2^22."""
     g = _gen(cuda)
     s1 = cf.fft_real_plain(torch.randn((1, length), generator=g,
                                        device=cuda), nfft)[0].contiguous()
@@ -273,7 +302,9 @@ def test_bootstrap_peaks_kernel_matches_plain(cuda, rows, length, nfft):
 @pytest.mark.parametrize("rows,n_samp,nfft", [(1000, 44100, 65536),
                                               (999, 1500, 4096),
                                               (3, 100, 128),
-                                              (3, 100000, 1 << 21)])
+                                              (3, 100000, 1 << 21),
+                                              (3, 2_000_000, 1 << 22),
+                                              (3, 100000, 1 << 23)])
 def test_noise_bootstrap_peaks_kernel_matches_plain(cuda, rows, n_samp, nfft):
     """K6: the twin's integers are the same on the card and the CPU, and the
     kernel's peaks equal the twin's (odd draw counts; n_samp <= nfft/2 is

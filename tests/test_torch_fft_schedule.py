@@ -11,20 +11,23 @@ indices so that a wrong map shows before the card sees it:
   i + m*L/R with the twiddle index e = m*k*L/(pR) (k = i mod p) into the
   half table, sign flipped for e >= L/2, and writing (i - k)*R + k + m*p;
   the 8- and 16-point DFTs split into DFT-4s in registers;
-- K4a: the n1 x n2 split (``cuda_fft.fft_real_split``), pass 1 over strips
-  of S = 16 columns (``kStrip``) with the twiddle W_n^{j2 k1} (e = j2*k1 <
-  n) as W_n2^{e / n1} * W_n^{e mod n1}, pass 2's blocks of 8, 16 or 32
-  rows k1 (``cuda_fft.fft_real_rows_strip``) and their partners n1 - k1 (row
-  n1/2 in the slot of row 0's) and the k2 maps
-  of the Hermitian split, DC and Nyquist; one block for n <= 4096;
-- K4b: K4a's pass 1; pass 2's blocks of 16 rows (any even strip in the
-  model), their forward row DFTs, the whitening task by task (a mirror
+- K4a: the n1 x n2 split (``cuda_fft.fft_real_split``) up to 2^22, pass 1
+  over strips of S = 16 columns (``kStrip``; 8 at n1 = 2,048,
+  ``cuda_fft.split_strips``) with the twiddle W_n^{j2 k1} (e = j2*k1 <
+  n) as W_n2^{e / n1} * W_n^{e mod n1}, pass 2's blocks of 8, 16, 32 or
+  64 rows k1 (``cuda_fft.fft_real_rows_strip``) and their partners n1 -
+  k1 (row n1/2 in the slot of row 0's) and the k2 maps of the Hermitian
+  split, DC and Nyquist; one block for n <= 4096;
+- K4b: K4a's pass 1; pass 2's blocks of 16 rows (8 at n2 = 2,048; any
+  even strip in the model), their forward row DFTs, the whitening task by
+  task (a mirror
   pair of bins against s1 at the lower bin, imaginary parts dropped at
   DC and Nyquist; row 0's and row n1/2's own pairs in block 0 with one
   task more), the inverse row DFTs and the conjugate twiddle written
-  back in place; pass 3's inverse column DFTs over strips and the maxima
-  of the blocks' maxima; one block for n <= 4096; against
-  irfft(whiten(s1 * conj(rfft(row)))) and ``bootstrap_peaks_plain``;
+  back in place; pass 3's inverse column DFTs over pass 1's strips and
+  the maxima of the blocks' maxima; one block for n <= 4096; against
+  irfft(whiten(s1 * conj(rfft(row)))) and ``bootstrap_peaks_plain``; the
+  strip rule (``split_strips``) and the split's limits;
 - K10b: strips of S lanes, zero_top, the input scale, the
   conjugate twiddles of the inverse, output modes 0/1/2 and rep chains;
 - K1 and K9 (``palt_gcc_all_pairs``, ``palt_whitened_corr``): K1's split
@@ -164,15 +167,15 @@ def _split_twiddle(lo, hi, e, n1):
     return hi[e >> (n1.bit_length() - 1)] * lo[e & (n1 - 1)]
 
 
-def _cols_pass(z, n1, n2):
-    """K4a's pass 1 (``fft_real_cols``): strips c0 = b*S of columns j2 =
-    c0 + s; the strip holds point (j1, s) = z[n2*j1 + c0 + s] -> Y[k1, j2]
-    (packed, n1, n2) with the twiddle W_n^{j2 k1}."""
+def _cols_pass(z, n1, n2, strip=S):
+    """K4a's pass 1 (``fft_real_cols``): strips c0 = b*strip of columns j2
+    = c0 + s; the strip holds point (j1, s) = z[n2*j1 + c0 + s] -> Y[k1,
+    j2] (packed, n1, n2) with the twiddle W_n^{j2 k1}."""
     packed = z.shape[0]
-    strips = z.reshape(packed, n1, n2 // S, S).transpose(0, 2, 1, 3)
-    cols = block_fft(strips)                          # (packed, n2/S, n1, S)
+    strips = z.reshape(packed, n1, n2 // strip, strip).transpose(0, 2, 1, 3)
+    cols = block_fft(strips)                  # (packed, n2/strip, n1, strip)
     k1 = np.arange(n1)[:, None]
-    j2 = (np.arange(n2 // S)[:, None, None] * S + np.arange(S))
+    j2 = (np.arange(n2 // strip)[:, None, None] * strip + np.arange(strip))
     lo, hi = _split_tables(n1 * n2, n1, n2)
     yv = cols * _split_twiddle(lo, hi, j2 * k1, n1)
     return yv.transpose(0, 2, 1, 3).reshape(packed, n1, n2)
@@ -212,8 +215,8 @@ def fft_real_model(x, n):
         out[0::2], out[1::2] = _split_bin(zk, zm, 0), _split_bin(zk, zm, 1)
         writes += 1
         return out[:rows], writes[:rows]
-    assert n1 * n2 == n and n1 >= n2 and n1 <= 1024 and n1 % 32 == 0
-    y = _cols_pass(z, n1, n2)
+    assert n1 * n2 == n and n1 >= n2 and n1 <= 2048 and n1 % 32 == 0
+    y = _cols_pass(z, n1, n2, cf.split_strips(n1, n2)[0])
     # Pass 2 (fft_real_rows): block b holds rows pair_row(b, r), r < S2,
     # all blocks at once; then each (block, slot r, k2) of the epilogue.
     S2 = cf.fft_real_rows_strip(n2, packed)
@@ -273,12 +276,13 @@ def _boot_tasks(b, S2, n1, n2):
     return r, k2, row, pr, pk
 
 
-def bootstrap_peaks_model(s1, x, n, strip=S):
+def bootstrap_peaks_model(s1, x, n, strip=None):
     """K4b on (rows, len) real rows against s1 (n/2 + 1,) -> ((rows,)
     maxima, (rows, n) correlations in natural order), following the
     kernels: one block for n <= 4096 (``boot_block``), else K4a's pass 1,
-    ``boot_rows`` (``strip`` rows a block; the kernel holds kStrip = 16)
-    and ``boot_cols``.  Asserts that the whitening's tasks
+    ``boot_rows`` (``strip`` rows a block; the kernel's by default,
+    ``split_strips``: 16, 8 at n2 = 2,048) and ``boot_cols`` (pass 1's
+    strips of columns).  Asserts that the whitening's tasks
     cover every bin once (a pair's two bins, or a self-mirrored bin), that
     pass 2 writes every row k1 once, and that its tasks read s1 at
     consecutive bins."""
@@ -294,9 +298,10 @@ def bootstrap_peaks_model(s1, x, n, strip=S):
         natural = block_fft(zf[:, :, None], -1.0)[..., 0]
         maxima = np.stack([natural.real.max(-1), natural.imag.max(-1)], -1)
     else:
-        y = _cols_pass(z, n1, n2)
+        cs, rs = cf.split_strips(n1, n2)
+        y = _cols_pass(z, n1, n2, cs)
         # Pass 2 (boot_rows): the forward row DFTs of each block's slots.
-        S2 = strip
+        S2 = strip or rs
         nb = n1 // S2
         slot_rows = _slot_rows(n1, S2)                     # (nb, S2)
         buf = block_fft(y[:, slot_rows, :].transpose(0, 1, 3, 2))
@@ -327,10 +332,11 @@ def bootstrap_peaks_model(s1, x, n, strip=S):
         assert np.array_equal(np.bincount(slot_rows.ravel(), minlength=n1),
                               np.ones(n1, int))
         y[:, slot_rows, :] = (inv * w).transpose(0, 1, 3, 2)
-        # Pass 3 (boot_cols): strips of S columns j2, the inverse column
-        # DFTs; each block's maxima, then their maximum (the atomics).
-        strips = y.reshape(packed, n1, n2 // S, S).transpose(0, 2, 1, 3)
-        cols = block_fft(strips, -1.0)                 # (packed, n2/S, n1, S)
+        # Pass 3 (boot_cols): pass 1's strips of cs columns j2, the inverse
+        # column DFTs; each block's maxima, then their maximum (the
+        # atomics).
+        strips = y.reshape(packed, n1, n2 // cs, cs).transpose(0, 2, 1, 3)
+        cols = block_fft(strips, -1.0)               # (packed, n2/cs, n1, cs)
         maxima = np.stack([cols.real.max(axis=(2, 3)).max(-1),
                            cols.imag.max(axis=(2, 3)).max(-1)], -1)
         natural = cols.transpose(0, 2, 1, 3).reshape(packed, n)
@@ -394,6 +400,27 @@ def test_fft_real_schedule_wide_strips(n, strip, monkeypatch):
     assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
 
 
+@pytest.mark.parametrize("bits,rows", [(21, 1), (21, 3), (22, 1), (22, 2)])
+def test_fft_real_schedule_above_2_20(bits, rows):
+    """2^21 (2,048 x 1,024: pass 1's strips of 8 columns, pass 2's of 16
+    rows) and 2^22 (2,048 x 2,048: 8 columns, pass 2's 8 rows) against
+    np.fft.rfft, odd and even row counts: each bin written exactly once,
+    DC and Nyquist exactly real."""
+    n = 1 << bits
+    n1, n2 = cf.fft_real_split(n)
+    assert cf._split_n1(n) == n1 == 2048
+    assert cf.split_strips(n1, n2)[0] == 8
+    assert cf.fft_real_rows_strip(n2, (rows + 1) // 2) == (16 if bits == 21
+                                                           else 8)
+    x = _rows(np.random.default_rng(bits + 10 * rows), rows,
+              n - n // 4 - 1)
+    got, writes = fft_real_model(x, n)
+    want = np.fft.rfft(x, n=n)
+    assert np.array_equal(writes, np.ones_like(writes))
+    assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
+    assert not got[:, 0].imag.any() and not got[:, -1].imag.any()
+
+
 def _boot_case(rng, rows, n):
     """s1 (n/2 + 1,) random complex (imaginary parts at DC and Nyquist
     too) and rows of len < n."""
@@ -406,7 +433,7 @@ def _boot_reference(s1, x, n):
     return np.fft.irfft(_whiten(s1[None, :], np.fft.rfft(x, n=n)), n=n)
 
 
-def _check_boot(s1, x, n, strip=S):
+def _check_boot(s1, x, n, strip=None):
     peaks, corr = bootstrap_peaks_model(s1, x, n, strip)
     want = _boot_reference(s1, x, n)
     tol = 1e-9 * np.abs(want).max()
@@ -430,9 +457,20 @@ def test_bootstrap_schedule_matches_irfft(bits):
 
 
 def test_bootstrap_schedule_largest_split():
-    """2^20, the largest split (1024 x 1024), at one row."""
+    """2^22, the largest split (2,048 x 2,048: strips of 8 columns and of 8
+    rows), at one row."""
     n = cf.FFT_REAL_MAX
-    _check_boot(*_boot_case(np.random.default_rng(20), 1, n), n)
+    assert cf.split_strips(*cf.fft_real_split(n)) == (8, 8)
+    _check_boot(*_boot_case(np.random.default_rng(22), 1, n), n)
+
+
+@pytest.mark.parametrize("bits", [20, 21])
+def test_bootstrap_schedule_long_splits(bits):
+    """2^20 (1,024 x 1,024, the largest split of strips of 16) and 2^21
+    (2,048 x 1,024: 8 columns a column strip, 16 rows a row strip) at one
+    row."""
+    n = 1 << bits
+    _check_boot(*_boot_case(np.random.default_rng(bits), 1, n), n)
 
 
 @pytest.mark.parametrize("n", [8192, 65536, 131072, 1 << 18])
@@ -458,7 +496,39 @@ def test_fft_real_split_choice(n):
         assert n2 <= n1 <= 2 * n2 and n1 % 32 == 0 and n2 % S == 0
         assert cf.fft_real_rows_strip(n2, 63) == 16
         assert n1 % cf.fft_real_rows_strip(n2, 64) == 0
-    assert cf.fft_real_split(cf.FFT_REAL_MAX) == (1024, 1024)
+    assert cf.fft_real_split(cf.FFT_REAL_MAX) == (2048, 2048)
+
+
+@pytest.mark.parametrize("n,strips,rows_strip", [
+    (8192, (16, 16), 16), (1 << 16, (16, 16), 16), (1 << 18, (16, 16), 16),
+    (1 << 20, (16, 16), 16), (1 << 21, (8, 16), 16), (1 << 22, (8, 8), 8)])
+def test_split_strips_rule(n, strips, rows_strip):
+    """K4a's, K4b's and K6's strips (``split_strips``): 16 columns and 16
+    rows up to n1 = 1,024 (every shape up to 2^20 keeps its strips), 8
+    columns at n1 = 2,048 and 8 rows at n2 = 2,048; K4a's pass 2 8 rows at
+    n2 = 2,048.  Each strip holds at most ``BLOCK_POINTS`` points and its
+    pass fits one block's shared memory (the kernels' byte counts); 16
+    does not fit where 8 is taken.  The split reaches 2^22 for these three
+    kernels and 2^20 for the others (``STAGE_SPLIT_MAX``)."""
+    n1, n2 = cf.fft_real_split(n)
+    assert cf.split_strips(n1, n2) == strips
+    assert cf.fft_real_rows_strip(n2, 1) == rows_strip
+    cs, rs = strips
+    assert n1 * cs <= cf.BLOCK_POINTS and n2 * rs <= cf.BLOCK_POINTS
+    assert n2 % cs == 0 and n1 % rs == 0 and n1 % rows_strip == 0
+    assert 8 * (n1 // 2 + n1 + n2 + n1 * cs) <= cf.SMEM_OPTIN
+    assert 8 * (n2 // 2 + n1 + n2 + rs * (n2 + 1)) <= cf.SMEM_OPTIN
+    assert 8 * (n2 // 2 + rows_strip * (n2 + 1)) <= cf.SMEM_OPTIN
+    if cs == 8:
+        assert n1 * 16 > cf.BLOCK_POINTS
+    if rs == 8:
+        assert n2 * 16 > cf.BLOCK_POINTS
+    assert cf._split_n1(n) == n1
+    assert cf._split_strips(n1, n) == strips
+    assert cf.corr_schedule(n) == (n1 if n <= cf.STAGE_SPLIT_MAX else 0)
+    assert cf._split_n1(2 * cf.FFT_REAL_MAX) == 0
+    assert cf._split_strips(0, 2 * cf.FFT_REAL_MAX) == (0, 0)
+    assert cf.STAGE_SPLIT_MAX == 1 << 20 and cf.FFT_REAL_MAX == 1 << 22
 
 
 @pytest.mark.parametrize("n2", [64, 128, 256, 512, 1024])
@@ -495,11 +565,12 @@ def test_row_stages_schedule_matches_fft(n2):
 # K6's loader; the render and windowed-GCC stages on the split (K3, K2, K5)
 # ---------------------------------------------------------------------------
 
-def _strip_points(n1, n2):
-    """Point t that pass 1 (``fft_real_cols``) loads into slot idx = j1*S +
-    s of column strip c0 = b*S: (n2 / S, n1 * S)."""
-    idx = np.arange(n1 * S)
-    return (idx // S) * n2 + np.arange(n2 // S)[:, None] * S + idx % S
+def _strip_points(n1, n2, strip=S):
+    """Point t that pass 1 (``fft_real_cols``) loads into slot idx =
+    j1*strip + s of column strip c0 = b*strip: (n2 / strip, n1 * strip)."""
+    idx = np.arange(n1 * strip)
+    return ((idx // strip) * n2 + np.arange(n2 // strip)[:, None] * strip
+            + idx % strip)
 
 
 def noise_rows_model(seeds, n_samp, n):
@@ -510,7 +581,8 @@ def noise_rows_model(seeds, n_samp, n):
     blockDim; the split's pass 1 reads ``_strip_points``."""
     rows = seeds.shape[0]
     n1, n2 = cf.fft_real_split(n)
-    t = (np.arange(n) if n1 == 1 else _strip_points(n1, n2).ravel())
+    t = (np.arange(n) if n1 == 1 else
+         _strip_points(n1, n2, cf.split_strips(n1, n2)[0]).ravel())
     reads = np.bincount(t, minlength=n)
     key = seeds.astype(np.int64) & 0xFFFFFFFF
     w0, _ = noise_ops.philox_bits(torch.from_numpy(key[:, :1]),
@@ -525,7 +597,8 @@ def noise_rows_model(seeds, n_samp, n):
 
 @pytest.mark.parametrize("n,n_samp", [(128, 100), (4096, 1500),
                                       (8192, 8192), (65536, 44100),
-                                      (131072, 44100)])
+                                      (131072, 44100),
+                                      (1 << 21, 1_046_019)])
 def test_noise_loader_counter_map(n, n_samp):
     """Every draw reads each sample t once, at slot t (counter t), zero
     from n_samp on: the loaded rows are ``noise_ops.uniform`` zero-padded,

@@ -6,8 +6,9 @@ half launches the kernels its ``route`` names with that route's schedule,
 and together they reach every sweep route the card runs: K5 fused, K3 then
 K2 on the split, K1 in one block, on the split and on the radix-2 passes,
 K2 / K3 / K5 in one block at nfft <= 4,096 and K2 / K5's GCC on the passes
-that remain there (12 mics at 4,096), and K4a + K9 on a single pair with
-K4a's passes above 2^20.  The stubbed kernels write nothing, so the
+that remain there (12 mics at 4,096), and K4a + K9 on a single pair: K4a
+on its split up to 2^22 (n1 = 2,048 at 2^21 and 2^22), K9 on its radix-2
+passes above 2^20.  The stubbed kernels write nothing, so the
 solver tails downstream of them are stubbed too; the fuzz's plain half and
 its comparisons run on the card only."""
 
@@ -87,7 +88,7 @@ def test_configurations_span_the_promised_ranges():
     assert {c["fs"] for c in CONFIGS} == {8000.0, 16000.0, 44100.0, 48000.0}
     nffts = {fz.sweep_spec(c).nfft for c in sweeps}
     assert min(nffts) == 512 and max(nffts) == 131072
-    assert max(c["nfft"] for c in pairs) == 1 << 21
+    assert max(c["nfft"] for c in pairs) == 1 << 22
     assert {c["room"] for c in sweeps} == {False, True}
     assert {c["solver"] for c in sweeps} == {"lm", "srp"}
     assert fz.configs() == CONFIGS                  # a fixed draw
@@ -135,7 +136,8 @@ def test_configurations_reach_every_sweep_route():
     assert k1 == {"block", "split", "passes"}
     assert (65536, "passes") in stages("gcc_all_pairs")      # 64 mics
     k4a = stages("fft_real")
-    assert (1 << 21, "passes") in k4a
-    assert {lab.split()[0] for _, lab in k4a} == {"block", "split",
-                                                   "passes"}
-    assert stages("whitened_corr")
+    assert (1 << 21, "split 2048") in k4a and (1 << 22, "split 2048") in k4a
+    assert {lab.split()[0] for _, lab in k4a} == {"block", "split"}
+    k9 = stages("whitened_corr")
+    assert (1 << 20, "split 1024") in k9
+    assert (1 << 21, "passes") in k9 and (1 << 22, "passes") in k9

@@ -4,8 +4,9 @@ returns False), the kernel library is a stub, and every launch through
 ``cuda_fft._launch`` is recorded with its arguments instead of run.  The
 outputs are left as allocated, so these tests read the launches only.
 
-They hold K4a's radix-2 passes above 2^20, the row chunks of K4a, K4b, K6
-and K9, the scene chunks of K2, K3 and K5 at the sweep's 65,535 grid
+They hold K4a's, K4b's and K6's split up to 2^22 (strips of 8 at 2,048)
+and their radix-2 passes above, K1's, K2's, K3's, K5's and K9's routes
+above 2^20, the row chunks of K4a, K4b, K6 and K9, the scene chunks of K2, K3 and K5 at the sweep's 65,535 grid
 limit, their one-block schedule up to 4,096 points and its scratch, the exact-length parity path (K7 only), the api from recorded files
 (K1, K4a, K4b), the compat layer's single pair (K4a + K9 at a power of
 two, K7 otherwise), array calibration (K1 over the events at a power of
@@ -55,19 +56,31 @@ def _named(calls, name):
 
 
 # ---------------------------------------------------------------------------
-# K4a above 2^20
+# K4a, K4b and K6 above 2^20: the split to 2^22, the passes above
 # ---------------------------------------------------------------------------
 
 def test_spectrum_above_2_20_launches_k4a_on_the_radix2_passes(launches):
     """sig1's spectrum at nfft 2^21 (the bootstrap of a 23.7 s recording at
-    44.1 kHz) reaches one K4a launch with n1 = 0, the passes."""
+    44.1 kHz) reaches one K4a launch on the split, n1 = 2,048, with strips
+    of 8 columns and pass-2 strips of 16 rows (the radix-2 passes start
+    above 2^22)."""
     sig = torch.zeros(1_046_019)
     spec = ttdoa._spectrum(sig, 1 << 21)
     assert spec.shape == ((1 << 20) + 1,) and spec.dtype == torch.complex64
     (args,) = _named(launches, "fft_real")
-    rows, length, nfft, n1 = args[1:5]
-    assert (rows, length, nfft, n1) == (1, 1_046_019, 1 << 21, 0)
+    rows, length, nfft, n1, cols, s2 = args[1:7]
+    assert (rows, length, nfft, n1) == (1, 1_046_019, 1 << 21, 2048)
+    assert (cols, s2) == (8, 16)
     assert [n for n, _ in launches] == ["fft_real"]
+
+
+def test_spectrum_above_2_22_launches_k4a_on_the_radix2_passes(launches):
+    """At nfft 2^23, past the largest split (2^22), K4a's launch takes the
+    radix-2 passes (n1 = 0)."""
+    spec = ttdoa._spectrum(torch.zeros(4_200_000), 1 << 23)
+    assert spec.shape == ((1 << 22) + 1,)
+    (args,) = _named(launches, "fft_real")
+    assert args[1:5] == (1, 4_200_000, 1 << 23, 0)
 
 
 @pytest.mark.parametrize("mode,kernel", [("permutation", "bootstrap_peaks"),
@@ -75,25 +88,77 @@ def test_spectrum_above_2_20_launches_k4a_on_the_radix2_passes(launches):
 def test_bootstrap_at_2_21_runs_both_nulls_on_the_passes(launches, mode,
                                                          kernel):
     """bootstrap_significance at nfft 2^21 with each null: K4a and K4b (or
-    K6) on their radix-2 passes, no ValueError."""
+    K6) on the split, n1 = 2,048, with strips of 8 columns and 16 rows."""
     gen = torch.Generator().manual_seed(0)
     sig1 = torch.randn(600_000, generator=gen)
     sig2 = torch.randn(600_000, generator=gen)
     ttdoa.bootstrap_significance(sig1, sig2, gen, num_bootstrap=4,
                                  bootstrap_mode=mode, nfft=1 << 21)
     assert [n for n, _ in launches] == ["fft_real", kernel]
+    assert _named(launches, "fft_real")[0][4:6] == (2048, 8)
+    (args,) = _named(launches, kernel)
+    # (.., rows, length or n_samp, nfft, n1, column strip, row strip, ..)
+    assert args[2:8] == (4, 600_000, 1 << 21, 2048, 8, 16)
+
+
+@pytest.mark.parametrize("mode,kernel", [("permutation", "bootstrap_peaks"),
+                                         ("noise", "noise_bootstrap_peaks")])
+def test_bootstrap_above_2_22_runs_both_nulls_on_the_passes(launches, mode,
+                                                            kernel):
+    """At nfft 2^23 both nulls run K4a and K4b (or K6) on the radix-2
+    passes (n1 = 0), with twice the packed rows of scratch."""
+    gen = torch.Generator().manual_seed(0)
+    sig1 = torch.randn(4_200_000, generator=gen)
+    sig2 = torch.randn(4_200_000, generator=gen)
+    ttdoa.bootstrap_significance(sig1, sig2, gen, num_bootstrap=4,
+                                 bootstrap_mode=mode, nfft=1 << 23)
+    assert [n for n, _ in launches] == ["fft_real", kernel]
     assert _named(launches, "fft_real")[0][4] == 0
     (args,) = _named(launches, kernel)
-    # (.., rows, length or n_samp, nfft, n1, ..)
-    assert args[2:6] == (4, 600_000, 1 << 21, 0)
+    assert args[2:6] == (4, 4_200_000, 1 << 23, 0)
 
 
-@pytest.mark.parametrize("nfft,n1", [(4096, 1), (1 << 16, 256), (1 << 20, 1024),
-                                     (1 << 21, 0), (1 << 22, 0)])
-def test_fft_real_schedule_by_length(launches, nfft, n1):
+@pytest.mark.parametrize("nfft,n1,strips", [
+    (4096, 1, (0, 8)), (1 << 16, 256, (16, 16)), (1 << 20, 1024, (16, 16)),
+    (1 << 21, 2048, (8, 16)), (1 << 22, 2048, (8, 8)), (1 << 23, 0, (0, 8))])
+def test_fft_real_schedule_by_length(launches, nfft, n1, strips):
+    """K4a's n1 (``_split_n1``) and the strips of its two passes: 16 and
+    16 up to 2^20, 8 columns from n1 = 2,048 and 8 rows at n2 = 2,048;
+    one block (n1 = 1) and the passes (n1 = 0) read neither."""
     cf.fft_real(torch.zeros(2, 100), nfft)
     (args,) = _named(launches, "fft_real")
     assert args[3:5] == (nfft, n1)
+    assert args[5:7] == strips
+
+
+@pytest.mark.parametrize("nfft", [1 << 20, 1 << 21, 1 << 22])
+def test_other_kernels_keep_their_routes_above_2_20(launches, nfft):
+    """K4a's, K4b's and K6's split reaches 2^22; K1, K2, K3, K5 (4 mics a
+    scene) and K9 keep theirs: above 2^20 the radix-2 passes (n1 = 0); at
+    2^20 K9's split (1,024) and, for the others, the passes, as their row
+    passes' strips do not fit there (``scene_stages``)."""
+    from pyaudiolocalization_tpu_torch.parallel.sweep import _pairs
+    pi, pj = _pairs(4)
+    length = nfft // 2 + 100
+    mask = torch.ones(nfft // 2 + 1)
+    cf.gcc_all_pairs(torch.zeros(1, 4, length), pi, pj, nfft, mask)
+    cf.gcc_windowed(torch.zeros(1, 4, length), pi, pj, nfft, 1, mask)
+    base, fade = torch.zeros(1, length), torch.ones(length)
+    tau, gains = torch.zeros(1, 4, 1), torch.ones(1, 4, 1)
+    cf.delay_sum(base, tau, gains, nfft, length, fade, True)
+    cf.scene_windowed(base, tau, gains, pi, pj, nfft, length, 1, fade, mask)
+    spec = torch.zeros(1, nfft // 2 + 1, dtype=torch.complex64)
+    cf.whitened_corr(spec, spec, mask, nfft)
+    (k1,) = _named(launches, "gcc_all_pairs")
+    (k2,) = _named(launches, "gcc_windowed")
+    (k3,) = _named(launches, "delay_sum")
+    (k5,) = _named(launches, "scene_windowed")
+    (k9,) = _named(launches, "whitened_corr")
+    assert (k1[4:6], k2[4:6]) == ((nfft, 0), (nfft, 0))
+    assert k3[7:9] == (nfft, 0) and k5[7:10] == (nfft, 0, 0)
+    assert k9[3:5] == (nfft, 1024 if nfft == 1 << 20 else 0)
+    assert cf.scene_stages(nfft, 4) == (0, 0)
+    assert cf.gcc_schedule(nfft, 4) == 0
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,8 @@ Configurations come from a fixed numpy seed (``configs``): random mic
 arrays of 2 to 12 mics (odd counts included) and one of 64, fs of 8, 16,
 44.1 and 48 kHz, durations whose transform runs from 512 to 131,072
 points, free field and eval_sweep.py's ``ROOM6`` (6 planes, order 2),
-solvers ``lm`` and ``srp``, and four single pairs up to a transform of
-2^21.  Together they reach every sweep route the card runs (``route``
+solvers ``lm`` and ``srp``, and five single pairs up to a transform of
+2^22.  Together they reach every sweep route the card runs (``route``
 names each configuration's): K5 fused (parallel/sweep.py
 ``_sim_est_fused``), K3 then K2 on the split (``_simulate`` +
 ``_estimate``), K1 on the full-correlation branch in one block, on the
@@ -15,7 +15,8 @@ tpu_kernel_check.py's check (b), the GCC beyond the split's strips), K2 /
 K3 / K5 in one block at nfft <= 4,096 and, with 12 mics at 4,096, K2 and
 K5's GCC stage on the passes that remain where a scene's rows do not fit
 one block, and K4a + K9 through ``models.tdoa.get_time_delays_phat`` at
-random lengths, K4a on its passes above 2^20.
+random lengths, above 2^20 K4a on its split of 8-wide strips (2^21,
+2^22) and K9 on its radix-2 passes.
 
 For each configuration the scenes are drawn and rendered on the card
 (K3), then localized twice: on the card (the kernels: the fused K5 path
@@ -94,10 +95,12 @@ SWEEPS = (
     ("srp", False, 64, 16000.0, 65536, 2),  # K1 beyond the split's strips
     ("lm", False, 12, 16000.0, 4096, 4),    # K2 / K5's GCC on the passes
 )
-# (fs, transform) of the single pairs: one block, the split, the split's
-# longest, the radix-2 passes above 2^20.
+# (fs, transform) of the single pairs: one block, the split, 2^20 (K9's
+# longest split), and 2^21 and 2^22, where K4a's split takes strips of 8
+# and K9 the radix-2 passes.  A pair added later goes last, so that the
+# earlier configurations keep their draws.
 PAIRS = ((8000.0, 4096), (16000.0, 65536), (48000.0, 1 << 20),
-         (44100.0, 1 << 21))
+         (44100.0, 1 << 21), (48000.0, 1 << 22))
 
 
 def configs(seed: int = CONFIG_SEED) -> List[dict]:

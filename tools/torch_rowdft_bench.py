@@ -43,7 +43,14 @@ bound.  ``gcc`` (``--gcc``) times K1 at the api's, no_gate's,
 an odd edge's, a passes shape and K2's one-block shapes (``GCC_SHAPES``)
 and K9 at the single pair's lengths and an edge (``CORR_SHAPES``), each
 held against its twin, by CUDA events and in device time by kernel,
-beside the twin's times (cuFFT).  ``k10``
+beside the twin's times (cuFFT).  ``--long`` times only K4a, K4b and K6
+at their shapes above 2^20 (two rows of a 23.7 s pair at 2^21 and one
+row at 2^22 against ``torch.fft.rfft``; the pair's null at 64 and 1,000
+draws and one row at 2^22), and ``--recording`` runs chip_smoke.py's 4 x
+24 s recording (phase 10, ``long_recording``) from this tree: its wall
+time cold and warm and its device time by kernel.  ``--trace`` (alone)
+counts the ``device_ms`` traces that miss a kernel, with and without
+their idle edges (``trace_check``).  ``k10``
 (``--k10``, alone) times K10a (``row_dft``), K10b (``row_stages``) and
 K10c (``lane_dft``) at ``SHAPES``, with the full forward by both
 schedules and the chain (n2 >= 512), each held against its twin, beside
@@ -56,7 +63,8 @@ It imports numpy and torch only.  Run from the repository root on the
 machine with the card:
 
     python tools/torch_rowdft_bench.py [--reps 5] [--k4a | --boot | --k6 |
-                                        --scene | --gcc | --k10]
+                                        --scene | --gcc | --k10 | --long |
+                                        --recording | --trace]
 
 ``chip_smoke.py`` runs it once as its phase 7 (``run``).  To A/B two
 versions of the package in one call, run this file from a copy of each
@@ -84,23 +92,45 @@ SHAPES = ((64, 4096), (128, 2048), (256, 1024), (512, 1024), (1024, 512))
 CHAIN_MIN_N2 = 512
 # K4a against its twin, relative to max|twin| (the card tests' limit), and
 # the production paths' shapes (rows, len, nfft): the bootstrap's and the
-# api's single row, the single pair, max_expected_delay=None, and 1024 rows.
+# api's single row, the single pair, max_expected_delay=None, and 1024 rows;
+# above 2^20 (the split's strips of 8) the single pair of a 23.7 s
+# recording at 44.1 kHz at 2^21 and one row of 2,000,000 samples at 2^22.
 K4A_TOL = 5e-6
+LONG = 1046019            # 23.7 s at 44.1 kHz: the api's nfft is 2^21
 K4A_SHAPES = ((1, 44100, 65536), (2, 44100, 65536), (1, 44100, 131072),
-              (1024, 65536, 65536))
+              (1024, 65536, 65536), (2, LONG, 1 << 21),
+              (1, 2000000, 1 << 22))
 # K4b against its twin, absolute (peaks of correlations bounded by 1), at
 # the permutation null's shapes (rows, len, nfft): the main path's and
-# no_gate's lengths, two rows (16-row strips) and one block; K7 at one
-# scene's exact-length spectrum; the calls a host step is timed over.
+# no_gate's lengths, two rows (16-row strips) and one block, and above 2^20
+# the 23.7 s pair's null at phase 10's 64 and the default 1,000 draws and
+# one row at 2^22; K7 at one scene's exact-length spectrum; the calls a
+# host step is timed over.
 BOOT_TOL = 1e-6
 BOOT_SHAPES = ((1000, 44100, 65536), (1000, 44100, 131072),
-               (2, 44100, 65536), (999, 3000, 4096))
+               (2, 44100, 65536), (999, 3000, 4096), (64, LONG, 1 << 21),
+               (1000, LONG, 1 << 21), (1, 2000000, 1 << 22))
 K7_SHAPE = (1, 44100)
 HOST_CALLS = 10_000
 # K6 at the noise null's shapes (draws, n_samp, nfft): the main path's and
-# no_gate's lengths, two draws and one block; the card tests' limit.
+# no_gate's lengths, two draws and one block, and K4b's shapes above 2^20;
+# the card tests' limit.
 K6_SHAPES = ((1000, 44100, 65536), (1000, 44100, 131072), (2, 44100, 65536),
-             (999, 1500, 4096))
+             (999, 1500, 4096), (64, LONG, 1 << 21), (1000, LONG, 1 << 21),
+             (1, 2000000, 1 << 22))
+# --long: the shapes from this length on (the split's strips of 8 columns).
+LONG_MIN = 1 << 21
+# Points (rows x nfft) a call of K4b's and K6's plain twins takes at once:
+# the twins hold several copies of the rows' spectra (K6's Philox twin
+# eight int64 words a sample), past the card's memory at 1,000 rows of
+# 2^21.  Each row's peak does not depend on the others.
+TWIN_POINTS = 1 << 28
+# Idle host time (s) between a traced step's edges and its calls
+# (``device_ms``).  ``--trace`` counts the traces that miss a kernel with
+# and without it (``trace_check``).
+TRACE_EDGE_S = 0.02
+# --trace: traces a case.
+TRACE_RUNS = 60
 # K5, K3 and K2 (scenes, mics, paths, padded length, samples, nfft, wq,
 # finish): the fused sweep's 512 scenes, the api's scene (22 paths), an
 # odd mic count on the split and the reverberant SRP sweep's render (K3
@@ -277,7 +307,7 @@ def run(reps: int = 5, log=print) -> dict:
     return results
 
 
-def device_ms(fn, calls: int = 20) -> dict:
+def device_ms(fn, calls: int = 20, edge: float = TRACE_EDGE_S) -> dict:
     """Device time per call of ``fn`` by kernel (the sum of each kernel's
     durations in a ``torch.profiler`` trace of CUDA activity over
     ``calls`` warm calls, divided by ``calls``), with their total under
@@ -285,14 +315,25 @@ def device_ms(fn, calls: int = 20) -> dict:
     CUDA events around a loop it leaves out the host's time between
     launches."""
     import tempfile
-    from torch.profiler import ProfilerActivity, profile
+    import time
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):  # a process's first trace may miss kernels
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    # A process's first trace may miss kernels: the schedule's warm-up step
+    # takes those calls, and only the second step's are kept.  Kernels that
+    # run within about a tenth of a millisecond of a step's edge may be
+    # lost or counted in the wrong step, so each step's calls stand
+    # ``edge`` seconds of idle host time inside its edges.
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            time.sleep(edge)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(edge)
+            prof.step()
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
@@ -310,22 +351,60 @@ def device_ms(fn, calls: int = 20) -> dict:
     return out
 
 
+def trace_check(runs: int = TRACE_RUNS, log=print) -> dict:
+    """How often a ``device_ms`` trace misses kernels, with and without
+    its idle edges: three calls of one kernel (an elementwise product on
+    4,096 points, a 4,096^2 matmul, a spin of 5e7 cycles) traced ``runs``
+    times each at edge 0 and at ``TRACE_EDGE_S``.  Logs one line per case
+    and edge and returns {(case, edge): traces that recorded another count
+    than one kernel a call}."""
+    dev = torch.device("cuda")
+    x = torch.randn(4096, device=dev)
+    a = torch.randn(4096, 4096, device=dev)
+    out = {}
+    for name, calls, fn in (
+            ("elementwise", 5, lambda: x.mul_(1.0)),
+            ("matmul", 5, lambda: a @ a),
+            ("sleep", 2, lambda: torch.cuda._sleep(50_000_000))):
+        for edge in (0.0, TRACE_EDGE_S):
+            counts = [device_ms(fn, calls, edge)["kernels"]
+                      for _ in range(runs)]
+            out[(name, edge)] = sum(k != 1 for k in counts)
+            log(f"trace {name} ({calls} calls a trace), edge {edge:g} s: "
+                f"{out[(name, edge)]} of {runs} traces miscount, kernels a "
+                f"call {sorted(set(counts))}")
+    return out
+
+
+def twin_rows(fn, rows: torch.Tensor, nfft: int) -> torch.Tensor:
+    """``fn`` over the rows (or seeds) in chunks of TWIN_POINTS // nfft,
+    joined: a plain twin of per-row peaks at a batch too large to take at
+    once."""
+    step = max(1, TWIN_POINTS // nfft)
+    return torch.cat([fn(rows[i:i + step])
+                      for i in range(0, rows.shape[0], step)])
+
+
 def _split(dev: dict) -> str:
     """"name ms, ..." of ``device_ms``'s kernels."""
     return ", ".join(f"{k} {v:.4f}" for k, v in dev.items()
                      if k not in ("total", "kernels"))
 
 
-def k4a(reps: int = 20, log=print) -> dict:
-    """K4a against ``torch.fft.rfft`` at ``K4A_SHAPES``, each held against
-    its twin: CUDA-event ms per call (``time_ms``, five loops) and device
-    ms per call (``device_ms``, by kernel).
-    Logs one line per shape and returns {shape: {"k4a", "rfft",
+def _shapes(shapes, min_nfft: int):
+    return [s for s in shapes if s[2] >= min_nfft]
+
+
+def k4a(reps: int = 20, log=print, min_nfft: int = 0) -> dict:
+    """K4a against ``torch.fft.rfft`` at ``K4A_SHAPES`` (those from
+    ``min_nfft`` on), each held against its twin: CUDA-event ms per call
+    (``time_ms``, five loops) and device ms per call (``device_ms``, by
+    kernel).  Logs one line per shape and returns {shape: {"k4a", "rfft",
     "k4a_device", "rfft_device"}}."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
-    for rows, length, nfft in K4A_SHAPES:
+    for rows, length, nfft in _shapes(K4A_SHAPES, min_nfft):
         x = torch.randn((rows, length), generator=gen, device=dev)
         shape = f"{rows} x {length} -> {nfft}"
         check(f"k4a {shape}", cf.fft_real(x, nfft),
@@ -344,17 +423,18 @@ def k4a(reps: int = 20, log=print) -> dict:
     return out
 
 
-def boot(reps: int = 10, log=print) -> dict:
+def boot(reps: int = 10, log=print, min_nfft: int = 0) -> dict:
     """K4b against its twin at ``BOOT_SHAPES`` (permuted rows of one
-    signal, as the permutation null draws them) and K7 against its twin
-    and ``torch.sgn`` at ``K7_SHAPE``: CUDA-event ms per call (``time_ms``,
-    median of three loops), device ms per call by kernel and device
-    kernels per call (``device_ms``); then ``host_steps``.  Logs one line
-    per case and returns {case: {"ms", "device"}}."""
+    signal, as the permutation null draws them; those from ``min_nfft`` on)
+    and, without ``min_nfft``, K7 against its twin and ``torch.sgn`` at
+    ``K7_SHAPE``: CUDA-event ms per call (``time_ms``, median of three
+    loops), device ms per call by kernel and device kernels per call
+    (``device_ms``); then ``host_steps``.  Logs one line per case and
+    returns {case: {"ms", "device"}}."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
-    for rows, length, nfft in BOOT_SHAPES:
+    for rows, length, nfft in _shapes(BOOT_SHAPES, min_nfft):
         sig = torch.randn(length, generator=gen, device=dev)
         keys = torch.rand((rows, length), generator=gen, device=dev)
         x = sig[torch.argsort(keys, dim=-1)].contiguous()
@@ -362,8 +442,9 @@ def boot(reps: int = 10, log=print) -> dict:
                                            device=dev), nfft)[0].contiguous()
         call = lambda: cf.bootstrap_peaks(s1, x, nfft)  # noqa: E731
         got, ms = time_ms(call, reps)
-        err = float((got - cf.bootstrap_peaks_plain(s1, x, nfft)).abs()
-                    .max())
+        want = twin_rows(lambda r: cf.bootstrap_peaks_plain(s1, r, nfft), x,
+                         nfft)
+        err = float((got - want).abs().max())
         if not err <= BOOT_TOL:
             raise AssertionError(f"K4b {rows} x {length} -> {nfft}: max "
                                  f"|kernel - plain| = {err:.3e}")
@@ -374,6 +455,8 @@ def boot(reps: int = 10, log=print) -> dict:
             f"{res['device']['kernels']:g} kernels a call "
             f"({_split(res['device'])}); max |kernel - plain| {err:.2e}")
         del x, got
+    if min_nfft:
+        return out
     spec = torch.complex(torch.randn(K7_SHAPE, generator=gen, device=dev),
                          torch.randn(K7_SHAPE, generator=gen, device=dev))
     check(f"K7 {K7_SHAPE}", cf.whiten(spec), cf.whiten_plain(spec), 1e-6)
@@ -389,15 +472,16 @@ def boot(reps: int = 10, log=print) -> dict:
     return out
 
 
-def k6(reps: int = 10, log=print) -> dict:
-    """K6 against its twin at ``K6_SHAPES``: CUDA-event ms per call
-    (``time_ms``, median of three loops) and device ms per call by kernel
-    with the device kernels a call runs (``device_ms``).  Logs one line
-    per shape and returns {shape: {"ms", "device"}}."""
+def k6(reps: int = 10, log=print, min_nfft: int = 0) -> dict:
+    """K6 against its twin at ``K6_SHAPES`` (those from ``min_nfft`` on):
+    CUDA-event ms per call (``time_ms``, median of three loops) and device
+    ms per call by kernel with the device kernels a call runs
+    (``device_ms``).  Logs one line per shape and returns {shape: {"ms",
+    "device"}}."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
-    for rows, n_samp, nfft in K6_SHAPES:
+    for rows, n_samp, nfft in _shapes(K6_SHAPES, min_nfft):
         s1 = cf.fft_real_plain(torch.randn((1, n_samp), generator=gen,
                                            device=dev), nfft)[0].contiguous()
         seeds = torch.randint(-2 ** 31, 2 ** 31, (rows, 2), generator=gen,
@@ -405,8 +489,9 @@ def k6(reps: int = 10, log=print) -> dict:
         call = lambda: cf.noise_bootstrap_peaks(  # noqa: E731
             s1, seeds, n_samp, nfft)
         got, ms = time_ms(call, reps)
-        err = float((got - cf.noise_bootstrap_peaks_plain(
-            s1, seeds, n_samp, nfft)).abs().max())
+        want = twin_rows(lambda sd: cf.noise_bootstrap_peaks_plain(
+            s1, sd, n_samp, nfft), seeds, nfft)
+        err = float((got - want).abs().max())
         if not err <= BOOT_TOL:
             raise AssertionError(f"K6 {rows} x {n_samp} -> {nfft}: max "
                                  f"|kernel - plain| = {err:.3e}")
@@ -723,6 +808,19 @@ def host_steps(spec: torch.Tensor, log=print, calls: int = HOST_CALLS):
     return res
 
 
+def recording(card: str) -> None:
+    """``chip_smoke.long_recording`` of this tree (the 4 x 24 s recording
+    written, read back and localized with the noise null at nfft 2^21, a
+    warm call, the device time by kernel), logged beside ``card``."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    smoke.CARD[0] = card
+    smoke.long_recording(cf, torch, {})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=5)
@@ -740,6 +838,16 @@ def main() -> int:
     ap.add_argument("--gcc", action="store_true",
                     help="time only K1 and K9 at chip_smoke.py's shapes and "
                          "K2's one-block ones, beside their cuFFT twins")
+    ap.add_argument("--long", action="store_true",
+                    help="time only K4a, K4b and K6 at their shapes above "
+                         "2^20 (the split's strips of 8 columns)")
+    ap.add_argument("--recording", action="store_true",
+                    help="localize chip_smoke.py's 4 x 24 s recording "
+                         "(phase 10) cold and warm, with its device time "
+                         "by kernel")
+    ap.add_argument("--trace", action="store_true",
+                    help="only count the device-time traces that miss a "
+                         "kernel, with and without their idle edges")
     ap.add_argument("--k10", action="store_true",
                     help="time only K10a, K10b and K10c, the full forward "
                          "and the chain at the TPU tool's shapes, with "
@@ -753,11 +861,23 @@ def main() -> int:
                          text=True, check=True).stdout.strip()
     print(f"{smi}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
-    cf.build()
 
     def log(msg):
         print(msg, flush=True)
 
+    if args.trace:
+        trace_check(log=log)
+        return 0
+    cf.build()
+
+    if args.long or args.recording:
+        if args.long:
+            k4a(4 * args.reps, log, LONG_MIN)
+            boot(2 * args.reps, log, LONG_MIN)
+            k6(2 * args.reps, log, LONG_MIN)
+        if args.recording:
+            recording(smi)
+        return 0
     if args.boot:
         boot(2 * args.reps, log)
         return 0
