@@ -35,7 +35,13 @@ in twelve phases:
    with its device time and ``torch.sgn``'s; K1
    and K9 at every shape with their device time and the device kernels a
    call runs, held to their schedule: K1 3 on the split, 1 in one block,
-   and 11 mics at 65,536 on the passes; K9 2 and 1, also at 131,072;
+   and 11 mics at 65,536 on the passes; K9 2 and 1, also at 131,072; above
+   2^20 K1 at 1 x 4 mics of the 23.7 s recording's length and at 8 mics
+   (2^21) and at 4 mics x 2,000,000 samples (2^22), 4 device kernels a
+   call (K4a's two passes into the mic rows' spectra, K9's row pass over
+   pairs of them, the column pass), and K9 at one pair of each length, 2,
+   each held to its float32 twin within the limit plus the twin's own
+   distance from its float64 run, measured in the same run;
    phase 11's shapes: K1 over segments x subframes, K3 over the moving
    render's 132 frames, K7 at 6 x 4,097 and 28 x 2,049 bins; phase 12's:
    K1 over array calibration's 8 x 4 and 12 x 6 events of 4,800 samples
@@ -132,9 +138,12 @@ in twelve phases:
    samples, position within 5 mm, ``significant`` where clear) and parity
    mode with the pre-sync (K7 alone, ``check_parity``); a 4 x 24 s
    recording at 48 kHz written by ``write_wav`` and read back (nfft 2^21:
-   K1 on the radix-2 passes, K4a with K6 on the split; TDOAs within 0.5
+   K1, K4a and K6 on their split; TDOAs within 0.5
    samples of the injected delays), with the resampling's time and peak
-   memory, a warm call's wall time and its device time by kernel;
+   memory, a warm call's wall time and its device time by kernel, then
+   the same recording under ``max_expected_delay=None`` (nfft 2^22: K1,
+   K4a and K6 on their split of 8-wide strips) the same way; neither run
+   launches a radix-2 pass of K1;
    ``compat`` on the card (speed of sound, the single pair at the exact
    length by K7 and at a power of two by K4a + K9, the permutation null by
    K4a + K4b within 5 %, the significance metrics, ``noise_reduction`` by
@@ -278,7 +287,10 @@ ADDED = {("delay_sum", "odd"): 1, ("gcc_windowed", "odd"): 1,
          ("noise_bootstrap_peaks", "long"): 8,
          ("noise_bootstrap_peaks", "long1000"): 8,
          ("noise_bootstrap_peaks", "long22"): 8,
-         ("noise_bootstrap_peaks", "passes23"): 8}
+         ("noise_bootstrap_peaks", "passes23"): 8,
+         ("gcc_all_pairs", "long"): 9, ("gcc_all_pairs", "long8"): 9,
+         ("gcc_all_pairs", "long22"): 9, ("whitened_corr", "long"): 9,
+         ("whitened_corr", "long22"): 9}
 # The sweep across K2's, K3's and K5's scene-chunk boundary: one scene past
 # the 65,535 grid rows of one launch at 4 mics (3 couples), at nfft 512.
 CHUNK_SCENES = 21846
@@ -486,6 +498,17 @@ def kernel_phase(cf, torch):
             raise AssertionError(f"{name}: {dev_k['kernels']:g} device "
                                  f"kernels a call, want {kernels}")
 
+    def twin_gap(name, plain, *inputs):
+        """max |plain(inputs) - plain(inputs widened to float64)|: the
+        float32 twin's distance from its float64 run.  Above 2^20 a kernel
+        is held to its float32 twin within the limit plus this distance,
+        which float32 rounding of a 2^21- or 2^22-point transform sets."""
+        wide = [x.to(torch.complex128 if x.is_complex() else torch.float64)
+                for x in inputs]
+        gap = float((plain(*inputs).double() - plain(*wide)).abs().max())
+        log(f"{name}: max |float32 twin - float64 twin| = {gap:.3e}")
+        return gap
+
     results = {}
     reverb, multi = srp_specs()
     trio = _spec(json.loads(NB_GOLDEN.read_text())["trio/beam"]["spec"])
@@ -554,7 +577,10 @@ def kernel_phase(cf, torch):
     # reverberant SRP sweep's and the multi-source cube's, and an odd edge
     # (odd scenes, mics and pairs).  The split at 65,536 and 131,072 (3
     # device kernels a call), one block at 4,096 and below (1); "passes":
-    # 11 mics at 65,536, whose strips do not fit the split.
+    # 11 mics at 65,536, whose strips do not fit the split.  Above 2^20
+    # (4 device kernels a call: K4a's two passes into the mic rows'
+    # spectra, K9's row pass reading pairs of them, the column pass): the
+    # 23.7 s recording's 4 mics and 8 mics at 2^21, 4 mics at 2^22.
     for tag, (b, m, length, nfft, band) in {
             "api": (None, 4, N, NFFT, (300.0, 3400.0)),
             "no_gate": (None, 4, N, 2 * NFFT, None),
@@ -564,7 +590,10 @@ def kernel_phase(cf, torch):
             "multi": (MULTI_SCENES, 8, multi.num_samples, multi.nfft,
                       (300.0, 3400.0)),
             "edge": (5, 3, 1500, 2048, (300.0, 3400.0)),
-            "passes": (None, 11, N, NFFT, (300.0, 3400.0))}.items():
+            "passes": (None, 11, N, NFFT, (300.0, 3400.0)),
+            "long": (None, 4, LONG_SAMPLES, LONG_NFFT, (300.0, 3400.0)),
+            "long8": (None, 8, LONG_SAMPLES, LONG_NFFT, (300.0, 3400.0)),
+            "long22": (None, 4) + LONG22 + (None,)}.items():
         draw("gcc_all_pairs", tag)
         pi, pj = pairs(m)
         sig = (randn(m, length) if b is None
@@ -572,18 +601,23 @@ def kernel_phase(cf, torch):
         mask = cf.band_mask(nfft, band, FS, device=dev)
         scenes = b or 1
         nbytes = 4 * (scenes * (m * length + len(pi) * nfft) + nfft // 2 + 1)
+        tol = 1e-6
+        if nfft > cf.STAGE_SPLIT_MAX:
+            tol += twin_gap(f"gcc_all_pairs[{tag}]", lambda x, w: (
+                cf.gcc_all_pairs_plain(x, pi, pj, nfft, w)), sig, mask)
         res = compare(
             f"gcc_all_pairs[{tag}] B={b} M={m} P={len(pi)} nfft={nfft}",
             lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
             lambda: cf.gcc_all_pairs_plain(sig, pi, pj, nfft, mask),
-            tol=1e-6, reps=20 if scenes == 1 else 3,
+            tol=tol, reps=20 if scenes == 1 else 3,
             least=bound(nbytes, gcc_ops(scenes, m, len(pi), nfft)))
         n1 = cf.gcc_schedule(nfft, m)
         log_device(f"gcc_all_pairs[{tag}] (schedule n1={n1})",
                    lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
-                   kernels={1: 1, 0: None}.get(n1, 3))
+                   kernels=gcc_kernels(cf, nfft, n1))
         if tag == "main":
             results["gcc_all_pairs"] = res
+        del sig
 
     # K2: windowed GCC.  Main: the sweep's (512 scenes, wq 6); also the
     # api fast path's single scene (wq 21), an odd edge shape, the short
@@ -866,25 +900,33 @@ def kernel_phase(cf, torch):
         n1 = cf.gcc_schedule(nfft, m)
         log_device(f"gcc_all_pairs[{tag}] (schedule n1={n1})",
                    lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
-                   kernels={1: 1, 0: None}.get(n1, 3))
+                   kernels=gcc_kernels(cf, nfft, n1))
 
     # K9: whitened correlation of two K4a spectra, no band
     # (phat_correlation).  Main: the single pair at nfft 65,536; no_gate's
     # 131,072 (both on the split, 2 device kernels a call); edge: three row
-    # pairs in one block (1).
+    # pairs in one block (1); above 2^20 the single pair of a 23.7 s
+    # recording at 2^21 and of 2,000,000 samples at 2^22 (the split with
+    # strips of 8, 2 device kernels a call).
     for tag, (rows_n, length, nfft) in {"main": (1, N, NFFT),
                                         "edge": (3, 3000, 4096),
-                                        "no_gate": (1, N, 2 * NFFT)}.items():
+                                        "no_gate": (1, N, 2 * NFFT),
+                                        "long": (1, LONG_SAMPLES, LONG_NFFT),
+                                        "long22": (1,) + LONG22}.items():
         draw("whitened_corr", tag)
         spec = cf.fft_real_plain(randn(2 * rows_n, length), nfft)
         a, b = spec[:rows_n].contiguous(), spec[rows_n:].contiguous()
         mask = cf.band_mask(nfft, None, None, device=dev)
         bins = nfft // 2 + 1
+        tol = 1e-6
+        if nfft > cf.STAGE_SPLIT_MAX:
+            tol += twin_gap(f"whitened_corr[{tag}]", lambda x, y, w: (
+                cf.whitened_corr_plain(x, y, w, nfft)), a, b, mask)
         res = compare(
             f"whitened_corr[{tag}] rows={rows_n} nfft={nfft}",
             lambda: cf.whitened_corr(a, b, mask, nfft),
             lambda: cf.whitened_corr_plain(a, b, mask, nfft),
-            tol=1e-6, reps=20,
+            tol=tol, reps=20,
             least=bound(16 * rows_n * bins + 4 * bins + 4 * rows_n * nfft,
                         rows_n * (_rfft_ops(nfft) + (nfft // 2) * 15)))
         n1 = cf.corr_schedule(nfft)
@@ -957,6 +999,16 @@ def kernel_phase(cf, torch):
     rowdft_checks(torch)
     log(f"K10 checks of phase 3: {time.perf_counter() - start:.1f} s")
     return results
+
+
+def gcc_kernels(cf, nfft, n1):
+    """Device kernels a call of K1 runs at schedule n1: 1 in one block, 3
+    on the split up to ``STAGE_SPLIT_MAX`` (K4a's column pass, K2's row
+    pass, the column pass), 4 above (K4a's two passes into the spectra,
+    K9's row pass, the column pass); None on the passes."""
+    if n1 <= 1:
+        return n1 or None
+    return 4 if nfft > cf.STAGE_SPLIT_MAX else 3
 
 
 def per_call(cf, name, fn, want):
@@ -1378,7 +1430,7 @@ def options_phase(cf, torch, slice_golden, options_golden, launches):
 
 def long_null(cf, torch, tdoa, launches):
     """bootstrap_significance at nfft 2^21 (a 23.7 s pair at 44.1 kHz),
-    both nulls, on the radix-2 passes of K4a with K4b or K6: the
+    both nulls, on the split of K4a with K4b or K6: the
     permutation rows are drawn once and go to the kernel path and to the
     twins; the noise null's seeds are the ones its generator draws.  Held
     within 1e-5 (peaks of float32 correlations at most 1)."""
@@ -2761,14 +2813,24 @@ def recorded_api(cf, torch, golden, paths, launches):
     _add(launches, counts)
 
 
-def long_recording(cf, torch, launches):
+# Device kernels of K1's radix-2 passes (``palt_gcc_all_pairs`` at n1 =
+# 0): the packing, the passes, the cross-spectra and the split into pairs.
+K1_PASS_KERNELS = ("pack_rows", "stockham_pass", "gcc_cross", "split_pairs")
+
+
+def long_recording(cf, torch, launches, hold_split=True):
     """Step 3: 4 mics x 24 s at 48 kHz of a seeded noise source with
     whole-sample delays, written by the port's write_wav and read back:
-    after resampling n >= LONG_SAMPLES, so the GCC and the noise null
-    transform at 2^21 (K1 on its radix-2 passes, K4a with K6 on their
-    split of 8-wide strips).  Each TDOA within 0.5 samples of its injected
-    delay x 44,100 / 48,000.  Then a second, warm call's wall time and one
-    more call's device time by kernel (``torch.profiler``)."""
+    after resampling n >= LONG_SAMPLES, so under DEFAULT_CONFIG's
+    ``max_expected_delay`` (0.05 s: the circular next_pow2(n)) the GCC
+    and the noise null transform at 2^21, and under
+    ``max_expected_delay=None`` (next_pow2(2n - 1)) at 2^22: K1 through
+    its mic rows' spectra, K4a with K6, all on their split of 8-wide
+    strips.  For each, each TDOA within 0.5 samples of its injected delay
+    x 44,100 / 48,000; then a second, warm call's wall time and one more
+    call's device time by kernel (``torch.profiler``), which holds no
+    kernel of K1's radix-2 passes (``K1_PASS_KERNELS``; ``hold_split``
+    False only logs them, for an A/B against a tree that runs them)."""
     import os
     import tempfile
     import numpy as np
@@ -2792,49 +2854,59 @@ def long_recording(cf, torch, launches):
         paths, FS, dtype=torch.float32, device="cuda"))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     length = int(rows[0].shape[-1])
-    nfft = api._physical_nfft(length, FS, 0.05)
     log(f"24 s recording: read + resample 4 x {n:,} -> {length:,} samples "
-        f"{seconds:.3f} s wall, peak device memory {peak:.3f} GiB, nfft "
-        f"{nfft} {card_note()}")
-    if length < LONG_SAMPLES or nfft != LONG_NFFT:
-        raise AssertionError("the 24 s recording misses nfft 2^21")
-    cfg = scene_configs(DEFAULT_CONFIG)["default"]
-    cfg["localization"].update(bootstrap_mode="noise",
-                               num_bootstrap=LONG_DRAWS)
-
-    def run():
-        return _wall(torch, lambda: localize_sound_source(
-            cfg, audio_files=paths, use_simulation=False, device="cuda",
-            dtype=torch.float32))
-
-    (res, seconds), counts = run_path(
-        cf, "the 24 s recording (noise null)", run,
-        ("gcc_all_pairs", "fft_real", "noise_bootstrap_peaks"),
-        ("bootstrap_peaks",) + RECORDED_FORBID[:3])
-    _add(launches, counts)
+        f"{seconds:.3f} s wall, peak device memory {peak:.3f} GiB "
+        f"{card_note()}")
     pairs = [(i, j) for i in range(4) for j in range(i + 1, 4)]
     want = [(LONG_DELAYS[j] - LONG_DELAYS[i]) * FS / LONG_FILE_FS
             for i, j in pairs]
-    got = [float(t) * FS for t in res["tdoas"]]
-    err = max(abs(a - b) for a, b in zip(got, want))
-    log(f"24 s recording localized in {seconds:.3f} s wall (files, "
-        f"resampling and {LONG_DRAWS} noise draws a pair included): TDOAs "
-        f"{[round(v, 3) for v in got]} samples, injected "
-        f"{[round(v, 3) for v in want]}, max |diff| {err:.3f} samples "
-        f"{card_note()}")
-    if not err < 0.5 or not all(map(math.isfinite, got)):
-        raise AssertionError("the 24 s recording's TDOAs depart from the "
-                             "injected delays")
-    (_, warm), counts = run_path(
-        cf, "the 24 s recording, warm", run,
-        ("gcc_all_pairs", "fft_real", "noise_bootstrap_peaks"))
-    _add(launches, counts)
-    dev = _load_tool("torch_rowdft_bench").device_ms(run, 1)
-    log(f"24 s recording warm: {warm:.3f} s wall; device time a call "
-        f"{dev['total']:.3f} ms in {dev['kernels']:g} kernels, by kernel: "
-        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
-            dev.items(), key=lambda kv: -kv[1])
-            if k not in ("total", "kernels")) + f" {card_note()}")
+    for med, nfft_want in ((0.05, LONG_NFFT), (None, LONG22[1])):
+        nfft = api._physical_nfft(length, FS, med)
+        name = f"the 24 s recording (noise null, max_expected_delay={med})"
+        log(f"{name}: nfft {nfft}, K1's schedule n1="
+            f"{cf.gcc_schedule(nfft, 4)}")
+        if length < LONG_SAMPLES or nfft != nfft_want:
+            raise AssertionError(f"{name} misses nfft {nfft_want}")
+        cfg = scene_configs(DEFAULT_CONFIG)["default"]
+        cfg["localization"].update(bootstrap_mode="noise",
+                                   num_bootstrap=LONG_DRAWS,
+                                   max_expected_delay=med)
+
+        def run():
+            return _wall(torch, lambda: localize_sound_source(
+                cfg, audio_files=paths, use_simulation=False, device="cuda",
+                dtype=torch.float32))
+
+        (res, seconds), counts = run_path(
+            cf, name, run,
+            ("gcc_all_pairs", "fft_real", "noise_bootstrap_peaks"),
+            ("bootstrap_peaks",) + RECORDED_FORBID[:3])
+        _add(launches, counts)
+        got = [float(t) * FS for t in res["tdoas"]]
+        err = max(abs(a - b) for a, b in zip(got, want))
+        log(f"{name} localized in {seconds:.3f} s wall (files, resampling "
+            f"and {LONG_DRAWS} noise draws a pair included): TDOAs "
+            f"{[round(v, 3) for v in got]} samples, injected "
+            f"{[round(v, 3) for v in want]}, max |diff| {err:.3f} samples "
+            f"{card_note()}")
+        if not err < 0.5 or not all(map(math.isfinite, got)):
+            raise AssertionError(f"{name}: the TDOAs depart from the "
+                                 "injected delays")
+        (_, warm), counts = run_path(
+            cf, f"{name}, warm", run,
+            ("gcc_all_pairs", "fft_real", "noise_bootstrap_peaks"))
+        _add(launches, counts)
+        dev = _load_tool("torch_rowdft_bench").device_ms(run, 1)
+        log(f"{name} warm: {warm:.3f} s wall; device time a call "
+            f"{dev['total']:.3f} ms in {dev['kernels']:g} kernels, by kernel: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+                dev.items(), key=lambda kv: -kv[1])
+                if k not in ("total", "kernels")) + f" {card_note()}")
+        passes = [k for k in dev if any(p in k for p in K1_PASS_KERNELS)]
+        if passes and hold_split:
+            raise AssertionError(f"{name} ran K1's radix-2 passes: {passes}")
+        log(f"{name}: K1's radix-2 pass kernels in the trace: "
+            f"{passes or 'none'}")
 
 
 def compat_on_card(cf, torch, golden, launches):

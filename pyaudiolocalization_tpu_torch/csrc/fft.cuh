@@ -13,8 +13,8 @@
 //    pass, about 16 * log2(n) bytes per point and transform, and one
 //    launch per pass.  K1, K2 and K5 run on it where neither one block
 //    nor their split's strips fit (K2 and K5: more than 10 mics at 4096,
-//    24 at 2048), K3 where its strips do not, K1, K2, K3, K5 and K9 above
-//    2^20 and K4a, K4b and K6 above 2^22; they fuse their first or last
+//    24 at 2048), K3 where its strips do not, K2, K3 and K5 above 2^20
+//    and K1, K4a, K4b, K6 and K9 above 2^22; they fuse their first or last
 //    pass into a prologue or epilogue.
 //
 // 2. On-chip sub-transforms (`block_fft`): one block transforms S
@@ -31,9 +31,10 @@
 //    product n = n1 * n2 of two such launches (K4a; K4b, K6, K1, and K3's
 //    render and K2's GCC stages, both of them in K5, run it forward and
 //    back in three, the middle one holding the rows for both directions;
-//    K9 runs the back half in two; up to 1024 x 1024 with strips of
-//    kStrip sequences, and for K4a, K4b and K6 up to 2048 x 2048 with
-//    strips of 8 where 16 would pass kElems * 1024 points); the length-n2
+//    K9 runs the back half in two, and K1 above 2^20 K4a's two and K9's
+//    two; up to 1024 x 1024 with strips of kStrip sequences, and for K1,
+//    K4a, K4b, K6 and K9 up to 2048 x 2048 with strips of 8 where 16 would
+//    pass kElems * 1024 points); the length-n2
 //    rows of a (n2, 128) plane are one (K10b, and K10a with its radix-16
 //    stages on the tensor cores), and so are the 128-point lane DFTs of 32
 //    of its rows (K10c).
@@ -48,7 +49,7 @@ namespace palt {
 
 constexpr int kThreads = 256;
 constexpr int kStrip = 16;  // sequences a strip transform holds (tuned;
-                            // K4a's, K4b's and K6's split takes 8 at 2,048)
+                            // the split above 2^20 takes 8 at 2,048)
 constexpr int kElems = 16;  // points a thread holds per stage
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {

@@ -35,6 +35,9 @@ using palt::log2_int;
 namespace {
 
 constexpr int kRowThreads = 1024;
+// Above this length (``cuda_fft.STAGE_SPLIT_MAX``) K1's split runs
+// through the mic rows' spectra (`gcc_all_spectra`).
+constexpr int kStageSplitMax = 1 << 20;
 
 // Spectrum bin k of the real row packed as the real part (odd = 0) or the
 // imaginary part (odd = 1) of a complex row Z, from zk = Z[k] and zm =
@@ -217,9 +220,9 @@ cudaError_t with_strip(int s2, Launch launch) {
   return cudaErrorInvalidValue;
 }
 
-// The same for the strips of K4a's, K4b's and K6's column passes and of
-// K4b's and K6's row pass: 16 (kStrip) up to n1 (n2) = 1,024, 8 at 2,048
-// (``cuda_fft.split_strips``).
+// The same for the strips of the split's column passes (K4a's, K4b's,
+// K6's, K1's and K9's) and of K4b's, K6's, K1's and K9's row passes: 16
+// (kStrip) up to n1 (n2) = 1,024, 8 at 2,048 (``cuda_fft.split_strips``).
 template <typename Launch>
 cudaError_t with_split_strip(int strip, Launch launch) {
   if (strip == palt::kStrip)
@@ -783,7 +786,8 @@ boot_block(const float2* __restrict__ s1, Load load, int rows, int n,
 // conflict-free columns): block b's slot r holds row pair_row(b, r), half
 // of them the partners n1 - k1 of the other half, so that every bin's
 // mirror n - k lies in the same block.  Up to S * n2 threads.  S = kStrip
-// (16) but in K4b's and K6's row pass at n2 = 2,048, which holds 8.
+// (16) but in K4b's, K6's, K1's and K9's row pass at n2 = 2,048, which
+// holds 8.
 
 // Mirror pair t of a row pass's block b (t < pair_tasks(b, n2)), the maps
 // of `fft_real_rows`: bin (r, k2) of a first-half slot (row k1 < n1/2)
@@ -1772,30 +1776,43 @@ cudaError_t gcc_split(Load load, int scenes, int mics, const int* pairs_i,
 // KB) does not fit a block's 227 KB, so where `cuda_fft.gcc_schedule` /
 // `corr_schedule` say so they run K4b's four-step split:
 //
-// K1:  K4a's pass 1 over the mic rows; `gcc_rows` (K2's, without the
-//      statistics' keys); `corr_cols`.
-// K9:  `corr_rows`, which gathers each strip's bins of the two spectra
-//      (bin q <= n/2 of a and b; the mirror comes from the Hermitian
-//      pair), whitens, runs the inverse row DFTs and the conjugate
-//      twiddle; `corr_cols`.
+// K1 up to 2^20:  K4a's pass 1 over the mic rows; `gcc_rows` (K2's,
+//      without the statistics' keys); `corr_cols`.
+// K1 above 2^20 (to 2^22, n1 = 2,048):  K4a's two passes over the mic
+//      rows into their natural-order spectra (scenes * mics, n/2 + 1);
+//      `corr_rows` with `PairIndexLoad`, which reads rows scene * mics +
+//      pairs_i[p] and scene * mics + pairs_j[p] of them; `corr_cols`.
+//      `gcc_rows` holds a strip of every packed mic row a scene spans and
+//      one more, (mics + 1) / 2 + 1 strips, which fit 2,048 x 1,024 only
+//      up to 4 mics in strips of 8 rows and 2,048 x 2,048 not at all; this
+//      route holds one strip at any mic count, at the price of the
+//      spectra's write and one read of two spectra a pair.
+// K9:  `corr_rows` with `RowPairLoad` (rows 2c and 2c + 1 of a and b);
+//      `corr_cols`.
 //
-// `corr_cols` is pass 1 mirrored: the inverse column DFTs, times 1/n,
-// written in natural order, the real part to pair 2c and the imaginary
-// part to pair 2c + 1.  Up to 4,096 points one block holds the whole row
-// (`gcc_block`: a scene's packed mic rows and a spare row; `corr_block`:
-// one packed row), one launch.  Bound: device memory (the rows' read and
-// the correlations' write, plus on the split one write and one read of
-// each packed buffer a pass) and, in the row passes, their instructions,
-// as K2's; a single scene's or pair's call by its launches' latency.
+// `corr_rows` gathers each strip's bins of the two spectra of a pair (bin
+// q <= n/2; the mirror comes from the Hermitian pair), whitens, runs the
+// inverse row DFTs and the conjugate twiddle.  `corr_cols` is pass 1
+// mirrored: the inverse column DFTs, times 1/n, written in natural order,
+// the real part to pair 2c and the imaginary part to pair 2c + 1.  The
+// strips are K4a's (``cuda_fft.split_strips``): 16 columns and 16 rows up
+// to 1,024 x 1,024, 8 columns at n1 = 2,048 and 8 rows at n2 = 2,048.  Up
+// to 4,096 points one block holds the whole row (`gcc_block`: a scene's
+// packed mic rows and a spare row; `corr_block`: one packed row), one
+// launch.  Bound: device memory (the rows' read and the correlations'
+// write, plus on the split one write and one read of each packed buffer a
+// pass, and K1's spectra above 2^20) and, in the row passes, their
+// instructions, as K2's; a single scene's or pair's call by its launches'
+// latency.
 
-// K1 / K9 pass 3.  Grid (n2 / kStrip column strips, scenes * couples):
-// the inverse column DFTs of packed cross row rc = scene * couples + c,
-// times 1/n, into rows 2c (real part) and 2c + 1 (imaginary part, unless
+// K1 / K9 pass 3.  Grid (n2 / S column strips, scenes * couples): the
+// inverse column DFTs of packed cross row rc = scene * couples + c, times
+// 1/n, into rows 2c (real part) and 2c + 1 (imaginary part, unless
 // num_pairs is odd and c the last couple) of out (scenes, num_pairs, n).
+template <int S>
 __global__ void __launch_bounds__(1024)
 corr_cols(const float2* __restrict__ zc, int num_pairs, int couples, int n1,
           int n2, const float2* __restrict__ tw, float* __restrict__ out) {
-  using palt::kStrip;
   float2* stw = palt::fft_shared();
   float2* buf = stw + (n1 >> 1);
   const int n = n1 * n2;
@@ -1803,42 +1820,88 @@ corr_cols(const float2* __restrict__ zc, int num_pairs, int couples, int n1,
   const int scene = rc / couples;
   const int p0 = 2 * (rc - scene * couples);
   const bool two = p0 + 1 < num_pairs;
-  const int c0 = blockIdx.x * kStrip;
+  const int c0 = blockIdx.x * S;
   palt::stage_twiddles(stw, tw, n1, n2);
-  cols_inverse(zc + (size_t)rc * n, buf, stw, n1, n2, c0);
+  cols_inverse<S>(zc + (size_t)rc * n, buf, stw, n1, n2, c0);
   const float scale = 1.0f / (float)n;
   float* o0 = out + ((size_t)scene * num_pairs + p0) * (size_t)n;
-  for (int idx = threadIdx.x; idx < n1 * kStrip; idx += blockDim.x) {
-    const size_t j = (size_t)(idx / kStrip) * n2 + c0 + idx % kStrip;
+  for (int idx = threadIdx.x; idx < n1 * S; idx += blockDim.x) {
+    const size_t j = (size_t)(idx / S) * n2 + c0 + idx % S;
     const float2 v = buf[idx];
     o0[j] = v.x * scale;
     if (two) o0[n + j] = v.y * scale;
   }
 }
 
+template <int S = palt::kStrip>
 cudaError_t corr_cols_launch(const float2* zc, int scenes, int num_pairs,
                              int n1, int n2, const float2* tw, float* out,
                              cudaStream_t s) {
-  using palt::kStrip;
   const int couples = (num_pairs + 1) / 2;
-  const cudaError_t err = palt::allow_smem<corr_cols>();
+  const cudaError_t err = palt::allow_smem<corr_cols<S>>();
   if (err != cudaSuccess) return err;
-  corr_cols<<<dim3(n2 / kStrip, scenes * couples),
-              palt::fft_threads(n1, kStrip),
-              (n1 / 2 + n1 * kStrip) * (int)sizeof(float2), s>>>(
+  corr_cols<S><<<dim3(n2 / S, scenes * couples), palt::fft_threads(n1, S),
+                 (n1 / 2 + n1 * S) * (int)sizeof(float2), s>>>(
       zc, num_pairs, couples, n1, n2, tw, out);
   return cudaGetLastError();
 }
 
-// K9 pass 2.  Grid (n1 / S, packed rows): block (b, c) forms rows
-// pair_row(b, r) of packed cross row c, whiten(a * conj(b)) * band of rows
-// 2c and 2c + 1, from bins q <= n/2 of the natural-order spectra (one
-// task a mirror pair, `pair_task`, so that reads run over consecutive
-// bins), then the inverse row DFTs and the conjugate twiddle into zc.
-template <int kMaxThreads, int kMinBlocks>
+// Loaders of `corr_rows`: `load.pair(c, bins)` gives the four spectra
+// rows (bins 0..n/2 each, ``bins`` = n/2 + 1 apart) whose whitened
+// cross-spectra a0 * conj(b0) and a1 * conj(b1) packed cross row c holds;
+// with no second pair, a1 and b1 repeat the first and `two` is false.
+struct CorrPair {
+  const float2* a0;
+  const float2* b0;
+  const float2* a1;
+  const float2* b1;
+  bool two;
+};
+
+// K9: rows 2c and 2c + 1 of a and b (rows, n/2 + 1).
+struct RowPairLoad {
+  const float2* a;
+  const float2* b;
+  int rows;
+  __device__ __forceinline__ CorrPair pair(int c, size_t bins) const {
+    const bool two = 2 * c + 1 < rows;
+    const size_t r0 = (size_t)(2 * c) * bins;
+    const size_t r1 = two ? r0 + bins : r0;
+    return {a + r0, b + r0, a + r1, b + r1, two};
+  }
+};
+
+// K1 above 2^20: packed cross row rc = scene * couples + c holds pairs 2c
+// and 2c + 1 of the scene, whose mics are rows scene * mics + i of the
+// spectra spec (scenes * mics, n/2 + 1).
+struct PairIndexLoad {
+  const float2* spec;
+  const int* pairs_i;
+  const int* pairs_j;
+  int num_pairs;
+  int mics;
+  __device__ __forceinline__ CorrPair pair(int rc, size_t bins) const {
+    const int couples = (num_pairs + 1) / 2;
+    const int scene = rc / couples;
+    const int p0 = 2 * (rc - scene * couples);
+    const bool two = p0 + 1 < num_pairs;
+    const int p1 = two ? p0 + 1 : p0;
+    const size_t m0 = (size_t)scene * mics;
+    return {spec + (m0 + pairs_i[p0]) * bins, spec + (m0 + pairs_j[p0]) * bins,
+            spec + (m0 + pairs_i[p1]) * bins, spec + (m0 + pairs_j[p1]) * bins,
+            two};
+  }
+};
+
+// K1's and K9's pass 2.  Grid (n1 / S, packed cross rows): block (b, c)
+// forms rows pair_row(b, r) of packed cross row c, whiten(a * conj(b)) *
+// band of the loader's two pairs, from bins q <= n/2 of the natural-order
+// spectra (one task a mirror pair, `pair_task`, so that reads run over
+// consecutive bins), then the inverse row DFTs and the conjugate twiddle
+// into zc.  S = 16 rows a strip, 8 at n2 = 2,048 (172 KB).
+template <int kMaxThreads, int kMinBlocks, int S, class Load>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
-corr_rows(const float2* __restrict__ a, const float2* __restrict__ b,
-          int rows, const float* __restrict__ band, float eps, int n1,
+corr_rows(Load load, const float* __restrict__ band, float eps, int n1,
           int n2, const float2* __restrict__ tw, float2* __restrict__ zc) {
   float2* stw = palt::fft_shared();
   float2* lo = stw + (n2 >> 1);
@@ -1848,27 +1911,53 @@ corr_rows(const float2* __restrict__ a, const float2* __restrict__ b,
   const int n = n1 * n2;
   const int c = blockIdx.y;
   const int blk = blockIdx.x;
-  const bool two = 2 * c + 1 < rows;
-  const size_t bins = (size_t)(n >> 1) + 1;
-  const float2* a0 = a + (size_t)(2 * c) * bins;
-  const float2* b0 = b + (size_t)(2 * c) * bins;
+  const CorrPair src = load.pair(c, (size_t)(n >> 1) + 1);
   palt::stage_twiddles(stw, tw, n2, n1);
   stage_split_tables(lo, hi, tw, n1, n2);
-  const int tasks = pair_tasks(blk, n2);
+  const int tasks = pair_tasks<S>(blk, n2);
   for (int t = threadIdx.x; t < tasks; t += blockDim.x) {
-    const PairTask p = pair_task(t, blk, n1, n2, ld);
+    const PairTask p = pair_task<S>(t, blk, n1, n2, ld);
     const float bq = band[p.q];
-    float2 r0 = whiten(a0[p.q], b0[p.q], eps);
+    float2 r0 = whiten(src.a0[p.q], src.b0[p.q], eps);
     r0 = make_float2(r0.x * bq, r0.y * bq);
     float2 r1 = make_float2(0.0f, 0.0f);
-    if (two) {
-      r1 = whiten(a0[bins + p.q], b0[bins + p.q], eps);
+    if (src.two) {
+      r1 = whiten(src.a1[p.q], src.b1[p.q], eps);
       r1 = make_float2(r1.x * bq, r1.y * bq);
     }
     store_pair(work, p, n, r0, r1);
   }
-  palt::block_fft<palt::kStrip>(work, 1, ld, n2, stw, -1.0f);
-  store_rows(work, zc + (size_t)c * n, lo, hi, blk, n1, n2);
+  palt::block_fft<S>(work, 1, ld, n2, stw, -1.0f);
+  store_rows<S>(work, zc + (size_t)c * n, lo, hi, blk, n1, n2);
+}
+
+// Pass 2 over `rows_c` packed cross rows of load into zc, strips of rs
+// rows (16 or 8); at n2 <= 256 (16 rows) two blocks an SM, as K4b's.
+template <class Load>
+cudaError_t corr_rows_launch(Load load, int rows_c, const float* band,
+                             float eps, int n1, int n2, int rs,
+                             const float2* tw, float2* zc, cudaStream_t s) {
+  return with_split_strip(rs, [&](auto strip) {
+    constexpr int S = decltype(strip)::value;
+    const dim3 grid(n1 / S, rows_c);
+    const int threads = palt::fft_threads(n2, S);
+    const int smem = (n2 / 2 + n1 + n2 + S * (n2 + 1)) * (int)sizeof(float2);
+    cudaError_t err;
+    if constexpr (S == palt::kStrip) {  // 8 rows only at n2 = 2,048
+      if (n2 <= 256) {
+        err = palt::allow_smem<corr_rows<256, 2, S, Load>>();
+        if (err != cudaSuccess) return err;
+        corr_rows<256, 2, S, Load><<<grid, threads, smem, s>>>(
+            load, band, eps, n1, n2, tw, zc);
+        return cudaGetLastError();
+      }
+    }
+    err = palt::allow_smem<corr_rows<1024, 1, S, Load>>();
+    if (err != cudaSuccess) return err;
+    corr_rows<1024, 1, S, Load><<<grid, threads, smem, s>>>(load, band, eps,
+                                                            n1, n2, tw, zc);
+    return cudaGetLastError();
+  });
 }
 
 // K1's epilogue of `gcc_body`: both correlations of the packed inverse
@@ -2242,32 +2331,52 @@ cudaError_t gcc_all_split(const float* x, int scenes, int mics, int len,
   return corr_cols_launch(zc, scenes, num_pairs, n1, n2, tw, out, s);
 }
 
-// K9 on the split (n1 > 1), through zc (ceil(rows / 2), n).
-cudaError_t corr_split(const float2* a, const float2* b, int rows,
-                       const float* band, float eps, int n, int n1,
-                       const float2* tw, float2* zc, float* out,
-                       cudaStream_t s) {
-  using palt::kStrip;
+// K1 above 2^20 on the split (n1 = 2,048): the mic rows' spectra spec
+// (scenes * mics, n/2 + 1) by K4a's two passes through zm (ceil(scenes *
+// mics / 2), n), then the pairs' packed cross rows zc (scenes * couples,
+// n; may be zm, which is dead by then) and the column pass.  cs: the
+// column passes' strip, s2: K4a's pass-2 strip, rs: the row pass's.
+cudaError_t gcc_all_spectra(const float* x, int scenes, int mics, int len,
+                            const int* pairs_i, const int* pairs_j,
+                            int num_pairs, const float* band, float eps,
+                            int n, int n1, int cs, int s2, int rs,
+                            const float2* tw, float2* zm, float2* spec,
+                            float2* zc, float* out, cudaStream_t s) {
   const int n2 = n / n1;
-  const dim3 grid(n1 / kStrip, (rows + 1) / 2);
-  const int threads = palt::fft_threads(n2, kStrip);
-  const int smem =
-      (n2 / 2 + n1 + n2 + kStrip * (n2 + 1)) * (int)sizeof(float2);
-  cudaError_t err;
-  if (n2 <= 256) {
-    err = palt::allow_smem<corr_rows<256, 2>>();
-    if (err != cudaSuccess) return err;
-    corr_rows<256, 2><<<grid, threads, smem, s>>>(a, b, rows, band, eps, n1,
-                                                  n2, tw, zc);
-  } else {
-    err = palt::allow_smem<corr_rows<1024, 1>>();
-    if (err != cudaSuccess) return err;
-    corr_rows<1024, 1><<<grid, threads, smem, s>>>(a, b, rows, band, eps, n1,
-                                                   n2, tw, zc);
-  }
-  err = cudaGetLastError();
+  const int rows = scenes * mics;
+  cudaError_t err = with_split_strip(cs, [&](auto strip) {
+    return cols_launch<decltype(strip)::value>(RowLoad{x, rows, len},
+                                               (rows + 1) / 2, n1, n2, tw, zm,
+                                               s);
+  });
   if (err != cudaSuccess) return err;
-  return corr_cols_launch(zc, 1, rows, n1, n2, tw, out, s);
+  err = (cudaError_t)fft_real_rows_launch(zm, rows, n1, n2, s2, tw, spec, s);
+  if (err != cudaSuccess) return err;
+  err = corr_rows_launch(PairIndexLoad{spec, pairs_i, pairs_j, num_pairs, mics},
+                         scenes * ((num_pairs + 1) / 2), band, eps, n1, n2, rs,
+                         tw, zc, s);
+  if (err != cudaSuccess) return err;
+  return with_split_strip(cs, [&](auto strip) {
+    return corr_cols_launch<decltype(strip)::value>(zc, scenes, num_pairs, n1,
+                                                    n2, tw, out, s);
+  });
+}
+
+// K9 on the split (n1 > 1), through zc (ceil(rows / 2), n), strips of cs
+// columns and rs rows.
+cudaError_t corr_split(const float2* a, const float2* b, int rows,
+                       const float* band, float eps, int n, int n1, int cs,
+                       int rs, const float2* tw, float2* zc, float* out,
+                       cudaStream_t s) {
+  const int n2 = n / n1;
+  const cudaError_t err =
+      corr_rows_launch(RowPairLoad{a, b, rows}, (rows + 1) / 2, band, eps, n1,
+                       n2, rs, tw, zc, s);
+  if (err != cudaSuccess) return err;
+  return with_split_strip(cs, [&](auto strip) {
+    return corr_cols_launch<decltype(strip)::value>(zc, 1, rows, n1, n2, tw,
+                                                    out, s);
+  });
 }
 
 // ---- stages shared by the entry points -----------------------------------
@@ -2382,14 +2491,20 @@ int palt_fft_real(const float* x, int rows, int len, int n, int n1, int cs,
 // K1: x (scenes, mics, len) -> out (scenes, num_pairs, n) PHAT
 // correlations, circular.  Rows scene * mics + mic are packed two to a
 // transform across scenes (an odd mic count still packs), as in K2.
-// n1 = 1: one block a scene (`gcc_block`), no buffer; n1 > 1: the three
-// launches of the split n = n1 * n2 through spec0 and z0; n1 = 0: the
-// radix-2 passes through spec0 / spec1 and z0 / z1.
+// n1 = 1: one block a scene (`gcc_block`), no buffer; n1 > 1 up to
+// kStageSplitMax (2^20): the three launches of the split n = n1 * n2
+// through spec0 and z0; n1 > 1 above it: the four launches of
+// `gcc_all_spectra` through spec0 (K4a's packed rows), spec1 (the
+// spectra, scenes * mics rows of n/2 + 1 complex) and z0 (the cross rows;
+// may be spec0), with strips of cs columns, s2 rows in K4a's pass 2 and
+// rs rows in the row pass; n1 = 0: the radix-2 passes through spec0 /
+// spec1 and z0 / z1.
 int palt_gcc_all_pairs(const float* x, int scenes, int mics, int len, int n,
-                       int n1, const int* pairs_i, const int* pairs_j,
-                       int num_pairs, const float* band, float eps,
-                       const float2* tw, float2* spec0, float2* spec1,
-                       float2* z0, float2* z1, float* out, void* stream) {
+                       int n1, int cs, int s2, int rs, const int* pairs_i,
+                       const int* pairs_j, int num_pairs, const float* band,
+                       float eps, const float2* tw, float2* spec0,
+                       float2* spec1, float2* z0, float2* z1, float* out,
+                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int rows = scenes * mics;
   const int packed = (rows + 1) / 2;
@@ -2406,6 +2521,10 @@ int palt_gcc_all_pairs(const float* x, int scenes, int mics, int len, int n,
     PALT_CHECK();
     return 0;
   }
+  if (n1 > 1 && n > kStageSplitMax)
+    return (int)gcc_all_spectra(x, scenes, mics, len, pairs_i, pairs_j,
+                                num_pairs, band, eps, n, n1, cs, s2, rs, tw,
+                                spec0, spec1, z0, out, s);
   if (n1 > 1)
     return (int)gcc_all_split(x, scenes, mics, len, pairs_i, pairs_j,
                               num_pairs, band, eps, n, n1, tw, spec0, z0, out,
@@ -2531,10 +2650,10 @@ int palt_whiten(const float2* z, long long count, float eps, float2* out,
 // out (rows, n) circular correlations of whiten(a * conj(b)) * band,
 // scaled by 1/n (K1's back half with arbitrary row pairs).  n1 = 1: one
 // block a packed row (`corr_block`), no buffer; n1 > 1: the two launches of
-// the split n = n1 * n2 through z0; n1 = 0: the radix-2 passes through z0
-// / z1.
+// the split n = n1 * n2 through z0, strips of cs columns and rs rows (16
+// or 8 each); n1 = 0: the radix-2 passes through z0 / z1.
 int palt_whitened_corr(const float2* a, const float2* b, int rows, int n,
-                       int n1, const float* band, float eps,
+                       int n1, int cs, int rs, const float* band, float eps,
                        const float2* tw, float2* z0, float2* z1, float* out,
                        void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -2548,7 +2667,8 @@ int palt_whitened_corr(const float2* a, const float2* b, int rows, int n,
     return 0;
   }
   if (n1 > 1)
-    return (int)corr_split(a, b, rows, band, eps, n, n1, tw, z0, out, s);
+    return (int)corr_split(a, b, rows, band, eps, n, n1, cs, rs, tw, z0, out,
+                           s);
   corr_cross<<<dim3(bin_blocks(n), couples), kThreads, 0, s>>>(
       a, b, rows, band, eps, n, z0);
   PALT_CHECK();

@@ -8,8 +8,8 @@ for K7):
 wrapper               replaces                               bound on an H100
 ===================== ====================================== ==================
 fft_real              bfly_fft_real (:685)                   memory: 2 launches*
-whitened_corr         bfly_whitened_corr (:707)              memory: 2 launches
-gcc_all_pairs         bfly_gcc_all_pairs (:922)              memory: 3 launches
+whitened_corr         bfly_whitened_corr (:707)              memory: 2 launches*
+gcc_all_pairs         bfly_gcc_all_pairs (:922)              memory: 3 or 4*
 gcc_windowed          bfly_gcc_windowed (:1095)              memory: 1 or 3 launches
 bootstrap_peaks       bfly_bootstrap_peaks (:1227)           memory: 3 launches
 noise_bootstrap_peaks bfly_noise_bootstrap_peaks (:1326)     memory: 3 launches
@@ -18,8 +18,9 @@ delay_sum             bfly_delay_sum (:1851)                 memory: 1 or 4 laun
 whiten                pallas_kernels.phat_whiten_planes (:34) memory: 16 B/bin
 ===================== ====================================== ==================
 
-(*) Above 2^22 points K4a runs the radix-2 passes: the packing, log2(nfft)
-passes and the split into the two spectra, 2 + log2(nfft) launches.
+(*) Above 2^22 points K4a, K9 and K1 run the radix-2 passes (K4a: the
+packing, log2(nfft) passes and the split into the two spectra, 2 +
+log2(nfft) launches).  K1 takes 4 launches from 2^21 to 2^22.
 
 The three kernels of K10, the TPU package's A/B tool of FFT schedules
 (``tools/mxu_rowdft_bench.py:328``), are wrapped by ``ops/rowdft.py``
@@ -35,8 +36,9 @@ of sequences in shared memory for all of its radix-16 stages, and a long
 row is a four-step split of two such launches (``fft_real_split``; the
 bootstrap, the render and the GCCs run it forward and back in three, the
 middle launch holding rows for both directions; K9, whose input is
-spectra, in two; up to 2^22 for K4a, K4b and K6, whose strips narrow to
-8 at 2,048, ``split_strips``, and up to 2^20 for the others), so a
+spectra, in two; up to 2^22 for K4a, K4b, K6, K9 and K1, whose strips
+narrow to 8 at 2,048, ``split_strips``, K1 going through its mic rows'
+spectra above 2^20, and up to 2^20 for K2, K3 and K5), so a
 transform reads and writes each point once per
 launch (16 bytes a complex point) and is bound by device memory at
 that.  Up to 4,096 points the bootstraps, K9, the render (a packed base
@@ -47,7 +49,7 @@ passes over rows in device memory, one launch and 16 bytes a point per
 pass, about 16·log2(nfft) bytes per point and transform, and fuse their
 first or last pass into a prologue or epilogue: every stage where neither
 one block nor its split's strips fit (``scene_stages``, ``gcc_schedule``),
-K1, K2, K3, K5 and K9 above 2^20 and K4a, K4b and K6 above 2^22.  The
+K2, K3 and K5 above 2^20 and K1, K4a, K4b, K6 and K9 above 2^22.  The
 design keeps the rest of the work out of device memory where
 the TPU kernels did: real rows are packed two to a complex transform, the
 whitening / ramp synthesis runs in one pass over the spectra, two real
@@ -92,10 +94,11 @@ from . import signal as sig_ops
 
 PHAT_EPS = 1e-10
 # K4a: one block holds the packed row up to this length; the four-step
-# split of two on-chip transforms reaches 2048 x 2048 for K4a, K4b and K6
-# (FFT_REAL_MAX), with strips of 8 at 2,048 (``split_strips``), and 1024 x
-# 1024 for K1, K2, K3, K5 and K9 (STAGE_SPLIT_MAX), whose column strips
-# hold 16 columns.
+# split of two on-chip transforms reaches 2048 x 2048 for K4a, K4b, K6, K9
+# and K1 (FFT_REAL_MAX), with strips of 8 at 2,048 (``split_strips``), and
+# 1024 x 1024 for K2, K3 and K5 (STAGE_SPLIT_MAX), whose row passes hold
+# more than one strip; above STAGE_SPLIT_MAX K1's split goes through its
+# mic rows' spectra (``gcc_all_pairs``).
 FFT_REAL_ONE_BLOCK = 4096
 FFT_REAL_MAX = 1 << 22
 STAGE_SPLIT_MAX = 1 << 20
@@ -189,9 +192,10 @@ def _library() -> ctypes.CDLL:
             "palt_noise_bootstrap_peaks": [p, p, i, i, i, i, i, i, f, p, p,
                                            p, p],
             "palt_whiten": [p, ctypes.c_longlong, f, p, p],
-            "palt_whitened_corr": [p, p, i, i, i, p, f, p, p, p, p, p],
-            "palt_gcc_all_pairs": [p, i, i, i, i, i, p, p, i, p, f, p, p, p,
-                                   p, p, p, p],
+            "palt_whitened_corr": [p, p, i, i, i, i, i, p, f, p, p, p, p,
+                                   p],
+            "palt_gcc_all_pairs": [p, i, i, i, i, i, i, i, i, p, p, i, p, f,
+                                   p, p, p, p, p, p, p],
             "palt_bootstrap_peaks": [p, p, i, i, i, i, i, i, f, p, p, p,
                                      p],
             "palt_gcc_windowed": [p, i, i, i, i, i, p, p, i, p, f, i, p, p,
@@ -412,17 +416,17 @@ def scene_stages(nfft: int, mics: int):
     """(n1 of the render stage, n1 of the GCC stage) for ``mics`` mics a
     scene at nfft: the schedule of K3's render and of K2's windowed GCC
     (K5 runs each stage as K3 and K2 run it, so that the fused and the
-    split paths compute the same bits) and, for the GCC, of K1 too
-    (``gcc_schedule``).  Up to ``FFT_REAL_ONE_BLOCK`` (4,096): 1, one
-    block, for the render always (``render_block``: the twiddles, a packed
-    base row and one work row, 80 KB at 4,096) and for the GCC where a
-    scene's packed mic rows fit (``_gcc_block_smem``: up to 10 mics at
-    4,096, 24 at 2,048).  Up to 2^20: the four-step split nfft = n1 * n2
-    of ``fft_real_split`` where the row pass's strips fit one block's
-    shared memory (``SMEM_OPTIN``); the render's row pass holds two strips
-    (the base rows and one output row at a time), the GCC's one strip for
-    each packed mic row a scene's mics can span ((mics + 1) // 2) and one
-    for the output.  Else 0, the radix-2 passes, and so above
+    split paths compute the same bits) and, for the GCC, of K1 too up to
+    ``STAGE_SPLIT_MAX`` (``gcc_schedule``).  Up to ``FFT_REAL_ONE_BLOCK``
+    (4,096): 1, one block, for the render always (``render_block``: the
+    twiddles, a packed base row and one work row, 80 KB at 4,096) and for
+    the GCC where a scene's packed mic rows fit (``_gcc_block_smem``: up to
+    10 mics at 4,096, 24 at 2,048).  Up to 2^20: the four-step split nfft
+    = n1 * n2 of ``fft_real_split`` where the row pass's strips fit one
+    block's shared memory (``SMEM_OPTIN``); the render's row pass holds
+    two strips (the base rows and one output row at a time), the GCC's one
+    strip for each packed mic row a scene's mics can span ((mics + 1) //
+    2) and one for the output.  Else 0, the radix-2 passes, and so above
     ``STAGE_SPLIT_MAX`` (2^20): their column passes keep strips of 16
     columns, which stop at n1 = 1,024."""
     if nfft <= FFT_REAL_ONE_BLOCK:
@@ -437,21 +441,27 @@ def scene_stages(nfft: int, mics: int):
 
 
 def gcc_schedule(nfft: int, mics: int) -> int:
-    """n1 of K1's schedule for ``mics`` mics a scene at nfft: the GCC
-    stage's of ``scene_stages``, so K1 and K2 take one schedule a shape —
-    1, one block a scene (``gcc_block``), up to 4,096 where the scene's
-    rows fit; the four-step split where its row pass's strips fit; else 0,
-    the radix-2 passes."""
+    """n1 of K1's schedule for ``mics`` mics a scene at nfft.  Up to
+    ``STAGE_SPLIT_MAX`` (2^20) the GCC stage's of ``scene_stages``, so K1
+    and K2 take one schedule a shape — 1, one block a scene
+    (``gcc_block``), up to 4,096 where the scene's rows fit; the four-step
+    split where its row pass's strips fit; else 0, the radix-2 passes.
+    Above, up to ``FFT_REAL_MAX`` (2^22), K4a's split (n1 = 2,048) at any
+    mic count: K1 goes through its mic rows' spectra there, and its row
+    pass holds one strip (``gcc_all_pairs``); 0 above."""
+    if STAGE_SPLIT_MAX < nfft <= FFT_REAL_MAX:
+        return _split_n1(nfft)
     return scene_stages(nfft, mics)[1]
 
 
 def corr_schedule(nfft: int) -> int:
-    """n1 of K9's schedule at nfft: 1, one block a packed row
-    (``corr_block``), up to ``FFT_REAL_ONE_BLOCK``; the four-step split of
-    ``fft_real_split`` up to ``STAGE_SPLIT_MAX`` (2^20; its row pass holds
-    one strip, which fits at every split, and its column pass strips of 16
-    columns); 0, the radix-2 passes, above."""
-    return fft_real_split(nfft)[0] if nfft <= STAGE_SPLIT_MAX else 0
+    """n1 of K9's schedule at nfft, K4a's (``_split_n1``): 1, one block a
+    packed row (``corr_block``), up to ``FFT_REAL_ONE_BLOCK``; the
+    four-step split of ``fft_real_split`` up to ``FFT_REAL_MAX`` (2^22; its
+    row pass holds one strip, of 16 rows or 8 at n2 = 2,048, and its column
+    pass strips of 16 columns or 8 at n1 = 2,048: ``split_strips``); 0, the
+    radix-2 passes, above."""
+    return _split_n1(nfft)
 
 
 def _copies(n1: int) -> int:
@@ -562,11 +572,12 @@ def whitened_corr(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
     row (bins 0..n/2, mirrored, real DC and Nyquist), the packed inverse,
     1/n and the split into the two rows.  By length (``corr_schedule``):
     up to ``FFT_REAL_ONE_BLOCK`` (4,096) one launch, a block per packed row
-    holding it in shared memory, no scratch; up to ``STAGE_SPLIT_MAX``
-    (2^20) two launches over one scratch buffer on K4b's four-step split — a row
+    holding it in shared memory, no scratch; up to ``FFT_REAL_MAX`` (2^22)
+    two launches over one scratch buffer on K4b's four-step split — a row
     pass that gathers each strip's bins of ``a`` and ``b``, whitens and
     runs the inverse row DFTs, and K1's column pass, whose inverse column
-    DFTs write the rows in natural order; above, the radix-2 passes.
+    DFTs write the rows in natural order (strips of 16 rows and columns, 8
+    at 2,048: ``split_strips``); above, the radix-2 passes.
     Bound by device memory (the spectra's read, the rows' write, one
     write and one read of the packed buffer on the split); a single pair's
     call by its launches' latency.  A batch beyond ``ROW_CHUNK`` row
@@ -587,13 +598,14 @@ def whitened_corr(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
     rows = a.shape[0]
     out = torch.empty((rows, nfft), dtype=torch.float32, device=dev)
     n1 = corr_schedule(nfft)
+    cols, strip = _split_strips(n1, nfft)
     chunks = _row_chunks(rows)
     z0, z1, _z = _buffers(_copies(n1), (chunks[0][1] + 1) // 2, nfft, dev)
     tw = _twiddles(nfft, str(dev))
     for r0, r1 in chunks:
         _launch("whitened_corr", dev, lib.palt_whitened_corr,
-                a[r0].data_ptr(), b[r0].data_ptr(), r1 - r0, nfft, n1,
-                mask.data_ptr(), eps, tw.data_ptr(), z0, z1,
+                a[r0].data_ptr(), b[r0].data_ptr(), r1 - r0, nfft, n1, cols,
+                strip, mask.data_ptr(), eps, tw.data_ptr(), z0, z1,
                 out[r0].data_ptr())
     return out
 
@@ -659,12 +671,21 @@ def gcc_all_pairs(signals: torch.Tensor, pairs_i: Sequence[int],
       packed mic row; per couple the cross-spectra and the inverse row
       DFTs), and a column pass whose inverse column DFTs write the
       correlations in natural order;
+    - above ``STAGE_SPLIT_MAX`` (2^20) up to ``FFT_REAL_MAX`` (2^22), at
+      any mic count: four launches on the split 2,048 x n2 — K4a's two
+      passes write the mic rows' natural-order spectra (scenes * M, nfft/2
+      + 1), K9's row pass reads rows scene * M + pairs_i[p] and scene * M +
+      pairs_j[p] of them (the pair-indexed loader) into the packed cross
+      rows, and the column pass as above; the strips are K4a's
+      (``split_strips``, ``fft_real_rows_strip``: 8 columns, 16 rows at
+      2^21 and 8 at 2^22), and the cross rows reuse K4a's packed buffer;
     - elsewhere the radix-2 passes through device memory.
 
     A batch whose grids would exceed 65,535 rows launches over scene
     chunks (``scene_chunk``; one block a scene has no such limit).  Bound
     by device memory: the signals' read, the correlations' write and, on
-    the split, one write and one read of each packed buffer a pass."""
+    the split, one write and one read of each packed buffer a pass (above
+    2^20 also the spectra's write and two spectra read a pair)."""
     if _use_plain(signals, mask):
         return gcc_all_pairs_plain(signals, pairs_i, pairs_j, nfft, mask, eps)
     _check_contiguous("gcc_all_pairs", signals, mask)
@@ -695,16 +716,28 @@ def gcc_all_pairs(signals: torch.Tensor, pairs_i: Sequence[int],
     pj_t = torch.as_tensor(pj, dtype=torch.int32, device=dev)
     x = signals.view(scenes, mics, length)
     o = out.view(scenes, num_pairs, nfft)
-    spec0, spec1, _spec = _buffers(_copies(n1), (chunk * mics + 1) // 2,
-                                   nfft, dev)
-    cpl0, cpl1, _cpl = _buffers(_copies(n1), chunk * couples, nfft, dev)
+    packed = (chunk * mics + 1) // 2
+    strips = (0, 0, 0)
+    if n1 > 1 and nfft > STAGE_SPLIT_MAX:
+        # K4a's packed rows and, once the spectra are written, the cross
+        # rows share one buffer.
+        cols, rows_strip = _split_strips(n1, nfft)
+        strips = (cols, fft_real_rows_strip(nfft // n1, packed), rows_strip)
+        _buf = _scratch(max(packed, chunk * couples), nfft, dev)
+        _spec = torch.empty((chunk * mics, nfft // 2 + 1),
+                            dtype=torch.complex64, device=dev)
+        spec0, spec1 = _buf.data_ptr(), _spec.data_ptr()
+        cpl0, cpl1 = spec0, None
+    else:
+        spec0, spec1, _spec = _buffers(_copies(n1), packed, nfft, dev)
+        cpl0, cpl1, _cpl = _buffers(_copies(n1), chunk * couples, nfft, dev)
     tw = _twiddles(nfft, str(dev))
     for s0 in range(0, scenes, chunk):
         _launch("gcc_all_pairs", dev, lib.palt_gcc_all_pairs,
                 x[s0].data_ptr(), min(chunk, scenes - s0), mics, length,
-                nfft, n1, pi_t.data_ptr(), pj_t.data_ptr(), num_pairs,
-                mask.data_ptr(), eps, tw.data_ptr(), spec0, spec1, cpl0,
-                cpl1, o[s0].data_ptr())
+                nfft, n1, *strips, pi_t.data_ptr(), pj_t.data_ptr(),
+                num_pairs, mask.data_ptr(), eps, tw.data_ptr(), spec0, spec1,
+                cpl0, cpl1, o[s0].data_ptr())
     return out
 
 

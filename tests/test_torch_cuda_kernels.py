@@ -395,12 +395,13 @@ def test_whiten_kernel_takes_misaligned_views(cuda, bins):
 @pytest.mark.parametrize("rows,length,nfft,schedule", [
     (1, 44100, 65536, 256), (3, 3000, 4096, 1), (5, 100, 128, 1),
     (2, 44100, 131072, 512), (3, 6000, 8192, 128), (4, 100, 128, 1),
-    (1, 600000, 1 << 20, 1024), (1, 600000, 1 << 21, 0)])
+    (1, 600000, 1 << 20, 1024), (1, 600000, 1 << 21, 2048),
+    (1, 2000000, 1 << 22, 2048), (1, 600000, 1 << 23, 0)])
 def test_whitened_corr_kernel_matches_plain(cuda, rows, length, nfft,
                                             schedule):
     """K9 on each of its schedules (``corr_schedule``): one block a packed
-    row, the two launches of the split (up to 1024 x 1024) and the passes
-    above 2^20; odd and even row counts."""
+    row, the two launches of the split (up to 2048 x 2048, strips of 8 at
+    2,048) and the passes above 2^22; odd and even row counts."""
     assert cf.corr_schedule(nfft) == schedule
     g = _gen(cuda)
     x = torch.randn((2 * rows, length), generator=g, device=cuda)
@@ -595,7 +596,8 @@ def test_gcc_all_pairs_launches_over_scene_chunks(cuda, monkeypatch):
                                                       256),
     (None, 4, 44100, 131072, 512), (3, 3, 6000, 8192, 128),
     (2, 8, 44100, 65536, 256), (1, 11, 44100, 65536, 0),
-    (1, 3, 600000, 1 << 20, 0)])
+    (1, 3, 600000, 1 << 20, 0), (None, 4, 1046019, 1 << 21, 2048),
+    (2, 3, 600000, 1 << 21, 2048), (None, 4, 2000000, 1 << 22, 2048)])
 def test_gcc_all_pairs_schedules_match_plain(cuda, b, m, length, nfft,
                                              schedule):
     """K1 on each of its schedules (``gcc_schedule``): one block a scene
@@ -603,8 +605,10 @@ def test_gcc_all_pairs_schedules_match_plain(cuda, b, m, length, nfft,
     spread over blocks, the odd edge of 5 scenes x 3 mics, 10 mics), the
     three launches of the split (the api's one scene, whose row pass
     spreads its couples over ``gridDim.z``, no_gate's 131,072, an odd mic
-    count at 8,192, 8 mics) and the radix-2 passes (12 mics at 4,096, 11
-    at 65,536, 2^20)."""
+    count at 8,192, 8 mics), the four through the mic rows' spectra above
+    2^20 (a 23.7 s recording's 4 mics at 2^21, 2 scenes of 3 mics, 4 mics
+    at 2^22) and the radix-2 passes (12 mics at 4,096, 11 at 65,536,
+    2^20)."""
     assert cf.gcc_schedule(nfft, m) == schedule
     g = _gen(cuda, 5)
     sig = torch.randn((m, length) if b is None else (b, m, length),
@@ -625,9 +629,10 @@ def test_gcc_all_pairs_schedules_match_plain(cuda, b, m, length, nfft,
 def test_gcc_and_corr_device_kernels_per_call(cuda, tmp_path):
     """K1 runs three device kernels on the split at 65,536 and 131,072 (K4a's
     column pass, K2's row pass, the column pass that writes the
-    correlations) and one in one block (4,096, up to 8 mics here); K9 two
-    on the split (its row pass and K1's column pass) and one in one
-    block."""
+    correlations), four at 2^21 and 2^22 (K4a's two passes, K9's row pass,
+    the column pass) and one in one block (4,096, up to 8 mics here); K9
+    two on the split (its row pass and K1's column pass), to 2^22, and one
+    in one block."""
     g = _gen(cuda, 8)
     pi, pj = _pairs(4)
     for shape, nfft in (((4, 44100), 65536), ((4, 44100), 131072),
@@ -640,6 +645,15 @@ def test_gcc_and_corr_device_kernels_per_call(cuda, tmp_path):
         assert len(names) == 3, names
         assert ("fft_real_cols" in names[0] and "gcc_rows" in names[1]
                 and "corr_cols" in names[2]), names
+    for length, nfft in ((1046019, 1 << 21), (2000000, 1 << 22)):
+        sig = torch.randn((4, length), generator=g, device=cuda)
+        mask = cf.band_mask(nfft, None, None, device=cuda)
+        names = _device_kernels(
+            lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
+            tmp_path / f"k1_{nfft}.json")
+        want = ("fft_real_cols", "fft_real_rows", "corr_rows", "corr_cols")
+        assert len(names) == 4, names
+        assert all(w in n for w, n in zip(want, names)), names
     for m in (4, 8):
         sig = torch.randn((128, m, 4000), generator=g, device=cuda)
         qi, qj = _pairs(m)
@@ -650,6 +664,8 @@ def test_gcc_and_corr_device_kernels_per_call(cuda, tmp_path):
         assert len(names) == 1 and "gcc_block" in names[0], names
     for nfft, want in ((65536, ("corr_rows", "corr_cols")),
                        (131072, ("corr_rows", "corr_cols")),
+                       (1 << 21, ("corr_rows", "corr_cols")),
+                       (1 << 22, ("corr_rows", "corr_cols")),
                        (4096, ("corr_block",))):
         spec = cf.fft_real(torch.randn((2, 4000), generator=g, device=cuda),
                            nfft)

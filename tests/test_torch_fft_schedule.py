@@ -33,7 +33,11 @@ indices so that a wrong map shows before the card sees it:
 - K1 and K9 (``palt_gcc_all_pairs``, ``palt_whitened_corr``): K1's split
   (K2's passes 1 and 2, then ``corr_cols``' inverse column DFTs written
   to pairs 2c and 2c + 1 in natural order), K9's row pass gathering
-  natural-order bins by the mirror-pair tasks, the one-block versions
+  natural-order bins by the mirror-pair tasks (to 2^22: 16 rows a strip,
+  8 at n2 = 2,048, and 8 columns at n1 = 2,048), K1 above 2^20 (K4a's
+  passes into the mic rows' spectra, K9's row pass with the pair-indexed
+  loader, ``corr_cols``), held also against the JAX package at 2^21, the
+  one-block versions
   (``gcc_block`` with a scene's rows packed across scenes and couples
   shared over groups, ``corr_block``) against ``gcc_all_pairs_plain`` and
   ``whitened_corr_plain``, and the rules that pick each schedule
@@ -509,7 +513,8 @@ def test_split_strips_rule(n, strips, rows_strip):
     n2 = 2,048.  Each strip holds at most ``BLOCK_POINTS`` points and its
     pass fits one block's shared memory (the kernels' byte counts); 16
     does not fit where 8 is taken.  The split reaches 2^22 for these three
-    kernels and 2^20 for the others (``STAGE_SPLIT_MAX``)."""
+    kernels and for K9 and K1 (K9's schedule is theirs), and 2^20 for the
+    others (``STAGE_SPLIT_MAX``)."""
     n1, n2 = cf.fft_real_split(n)
     assert cf.split_strips(n1, n2) == strips
     assert cf.fft_real_rows_strip(n2, 1) == rows_strip
@@ -525,7 +530,7 @@ def test_split_strips_rule(n, strips, rows_strip):
         assert n2 * 16 > cf.BLOCK_POINTS
     assert cf._split_n1(n) == n1
     assert cf._split_strips(n1, n) == strips
-    assert cf.corr_schedule(n) == (n1 if n <= cf.STAGE_SPLIT_MAX else 0)
+    assert cf.corr_schedule(n) == n1
     assert cf._split_n1(2 * cf.FFT_REAL_MAX) == 0
     assert cf._split_strips(0, 2 * cf.FFT_REAL_MAX) == (0, 0)
     assert cf.STAGE_SPLIT_MAX == 1 << 20 and cf.FFT_REAL_MAX == 1 << 22
@@ -675,13 +680,13 @@ def _rows_back(work, slot_rows, n1, n2):
     return out
 
 
-def _cols_back(y, n1, n2):
-    """The inverse column DFTs of y (rows, n1, n2) by strips of S columns
-    (``cols_inverse``): (rows, n2 / S, n1, S), slot (j1, s) of strip b
-    holding sample n2*j1 + b*S + s."""
+def _cols_back(y, n1, n2, strip=S):
+    """The inverse column DFTs of y (rows, n1, n2) by strips of ``strip``
+    columns (``cols_inverse``): (rows, n2 / strip, n1, strip), slot (j1, s)
+    of strip b holding sample n2*j1 + b*strip + s."""
     rows = y.shape[0]
-    return block_fft(y.reshape(rows, n1, n2 // S, S).transpose(0, 2, 1, 3),
-                     -1.0)
+    return block_fft(y.reshape(rows, n1, n2 // strip, strip).transpose(
+        0, 2, 1, 3), -1.0)
 
 
 def _mic_response(tau, gain, q, n):
@@ -943,15 +948,15 @@ def test_scene_stages_rule(n, mics, want):
 # K1 and K9: whole correlations on the split and in one block
 # ---------------------------------------------------------------------------
 
-def corr_cols_model(cross, n1, n2):
+def corr_cols_model(cross, n1, n2, strip=S):
     """``corr_cols`` on one packed cross row (n1, n2): the inverse column
-    DFTs by strips, times 1/n; slot (j1, s) of strip b goes to sample j =
-    n2*j1 + b*S + s of both rows -> ((2, n) real and imaginary parts, the
-    count of writes to each sample)."""
+    DFTs by strips of ``strip`` columns, times 1/n; slot (j1, s) of strip b
+    goes to sample j = n2*j1 + b*strip + s of both rows -> ((2, n) real and
+    imaginary parts, the count of writes to each sample)."""
     n = n1 * n2
-    cols = _cols_back(cross[None], n1, n2)[0]          # (n2 / S, n1, S)
-    j = (np.arange(n1)[:, None] * n2 + np.arange(n2 // S)[:, None, None] * S
-         + np.arange(S))                                 # (n2 / S, n1, S)
+    cols = _cols_back(cross[None], n1, n2, strip)[0]   # (n2/strip, n1, strip)
+    j = (np.arange(n1)[:, None] * n2
+         + np.arange(n2 // strip)[:, None, None] * strip + np.arange(strip))
     out = np.full((2, n), np.nan)
     out[0, j.ravel()] = cols.real.ravel() / n
     out[1, j.ravel()] = cols.imag.ravel() / n
@@ -995,15 +1000,18 @@ def test_gcc_all_split_matches_gcc_all_pairs(scenes, mics, n, strip):
     assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
 
 
-def corr_split_model(a, b, mask, n, strip=S):
-    """K9 on the split: ``corr_rows`` — block (blk, c) gathers bin q <= n/2
-    of rows 2c and 2c + 1 of the natural-order spectra a and b for each of
-    its mirror-pair tasks, whitens times the band and stores the pair
-    (``store_pair``), then the inverse row DFTs and the conjugate twiddle —
-    and ``corr_cols`` -> (rows, n).  Asserts that each strip reads only
-    bins q <= n/2, each once a row."""
-    rows = a.shape[0]
+def corr_rows_model(pairs, mask, n, strip=None):
+    """``corr_rows`` over packed cross rows, each as its loader gives it:
+    ``pairs`` yields the spectra rows (a0, b0, a1, b1) (n/2 + 1,) of each
+    packed cross row c, a1 and b1 None without a second pair.  Block (blk,
+    c) gathers bin q <= n/2 of the rows for each of its mirror-pair tasks,
+    whitens times the band and stores the pair (``store_pair``), then the
+    inverse row DFTs and the conjugate twiddle -> yields each packed cross
+    row (n1, n2).  ``strip`` rows a block (the kernel's by default,
+    ``split_strips``: 16, 8 at n2 = 2,048).  Asserts that each strip reads
+    only bins q <= n/2, each once a row."""
     n1, n2 = cf.fft_real_split(n)
+    strip = strip or cf.split_strips(n1, n2)[1]
     nb = n1 // strip
     slot_rows = _slot_rows(n1, strip)
     tasks = _block_tasks(nb, strip, n1, n2)
@@ -1011,18 +1019,69 @@ def corr_split_model(a, b, mask, n, strip=S):
     assert q.max() <= n // 2
     assert np.array_equal(np.bincount(q, minlength=n // 2 + 1),
                           np.ones(n // 2 + 1, int))
-    out = np.full((rows, n), np.nan)
-    for c in range((rows + 1) // 2):
-        ya = _whiten(a[2 * c, q], b[2 * c, q]) * mask[q]
-        yb = np.zeros_like(ya)
-        if 2 * c + 1 < rows:
-            yb = _whiten(a[2 * c + 1, q], b[2 * c + 1, q]) * mask[q]
+    for a0, b0, a1, b1 in pairs:
+        ya = _whiten(a0[q], b0[q]) * mask[q]
+        yb = (np.zeros_like(ya) if a1 is None
+              else _whiten(a1[q], b1[q]) * mask[q])
         work = np.full((nb, n2, strip), np.nan, complex)
         _store_pairs(work, tasks, ya, yb, n)
-        res, writes = corr_cols_model(_rows_back(work, slot_rows, n1, n2),
-                                      n1, n2)
+        yield _rows_back(work, slot_rows, n1, n2)
+
+
+def corr_split_model(a, b, mask, n, strip=None):
+    """K9 on the split: ``corr_rows`` with ``RowPairLoad`` (rows 2c and 2c
+    + 1 of a and b) and ``corr_cols`` with the kernel's column strips (16,
+    8 at n1 = 2,048) -> (rows, n)."""
+    rows = a.shape[0]
+    n1, n2 = cf.fft_real_split(n)
+    cols = cf.split_strips(n1, n2)[0]
+    loads = ((a[2 * c], b[2 * c]) + ((a[2 * c + 1], b[2 * c + 1])
+                                     if 2 * c + 1 < rows else (None, None))
+             for c in range((rows + 1) // 2))
+    out = np.full((rows, n), np.nan)
+    for c, cross in enumerate(corr_rows_model(loads, mask, n, strip)):
+        res, writes = corr_cols_model(cross, n1, n2, cols)
         assert np.array_equal(writes, np.ones(n, int))
         out[2 * c:2 * c + 2] = res[:min(2, rows - 2 * c)]
+    return out
+
+
+def gcc_spectra_model(sig, pairs_i, pairs_j, n, mask):
+    """K1 above 2^20 (``gcc_all_spectra``): sig (scenes, mics, len) -> K4a's
+    two passes (``fft_real_model``) into the spectra of rows scene * mics +
+    mic, each bin written once; ``corr_rows`` with ``PairIndexLoad``
+    (packed cross row scene * couples + c reads rows scene * mics +
+    pairs_i[p] and + pairs_j[p] for p = 2c, 2c + 1); ``corr_cols`` writing
+    pair 2c from the real part and 2c + 1 from the imaginary part (none for
+    an odd pair count's last couple) -> (scenes, P, n)."""
+    scenes, mics, length = sig.shape
+    n1, n2 = cf.fft_real_split(n)
+    spec, writes = fft_real_model(sig.reshape(scenes * mics, length), n)
+    assert np.array_equal(writes, np.ones_like(writes))
+    pairs = len(pairs_i)
+    couples = (pairs + 1) // 2
+
+    def load(rc):
+        scene, c = divmod(rc, couples)
+        m0 = scene * mics
+        first = (spec[m0 + pairs_i[2 * c]], spec[m0 + pairs_j[2 * c]])
+        if 2 * c + 1 < pairs:
+            return first + (spec[m0 + pairs_i[2 * c + 1]],
+                            spec[m0 + pairs_j[2 * c + 1]])
+        return first + (None, None)
+
+    cols = cf.split_strips(n1, n2)[0]
+    out = np.full((scenes, pairs, n), np.nan)
+    crosses = corr_rows_model(map(load, range(scenes * couples)), mask, n)
+    for rc, cross in enumerate(crosses):
+        rows, writes = corr_cols_model(cross, n1, n2, cols)
+        assert np.array_equal(writes, np.ones(n, int))
+        scene, c = divmod(rc, couples)
+        for h in range(2):
+            if 2 * c + h < pairs:
+                assert np.isnan(out[scene, 2 * c + h]).all()
+                out[scene, 2 * c + h] = rows[h]
+    assert not np.isnan(out).any()
     return out
 
 
@@ -1046,6 +1105,79 @@ def test_corr_split_matches_whitened_corr(rows, n):
     got = corr_split_model(a, b, mask, n)
     t = torch.from_numpy
     want = cf.whitened_corr_plain(t(a), t(b), t(mask), n).numpy()
+    assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("bits,rows", [(21, 3), (22, 1)])
+def test_corr_split_above_2_20(bits, rows):
+    """K9 on the split to 2^22: at 2^21 (2,048 x 1,024) row strips of 16
+    and column strips of 8, at 2^22 (2,048 x 2,048) 8 and 8, against
+    ``whitened_corr_plain`` within 1e-9 of the max, every bin written
+    once (``corr_cols_model``)."""
+    n = 1 << bits
+    n1, n2 = cf.fft_real_split(n)
+    assert cf.corr_schedule(n) == n1 == 2048
+    assert cf.split_strips(n1, n2) == ((8, 16) if bits == 21 else (8, 8))
+    rng = np.random.default_rng(bits * 10 + rows)
+    a, b = _spectra(rng, rows, n), _spectra(rng, rows, n)
+    mask = cf.band_mask(n, (300.0, 3400.0), 44100.0,
+                        dtype=torch.float64).numpy()
+    got = corr_split_model(a, b, mask, n)
+    t = torch.from_numpy
+    want = cf.whitened_corr_plain(t(a), t(b), t(mask), n).numpy()
+    assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("bits,scenes,mics", [(21, 1, 4), (21, 2, 3),
+                                              (22, 1, 4)])
+def test_gcc_spectra_route_matches_gcc_all_pairs(bits, scenes, mics):
+    """K1 above 2^20 (``gcc_all_spectra``): K4a's passes into the mic rows'
+    spectra, K9's row pass reading pairs of them by index, the column
+    pass.  1 x 4 mics and 2 scenes x 3 mics at 2^21 (an odd pair count,
+    rows packed across scenes in K4a's passes), 4 mics at 2^22, against
+    ``gcc_all_pairs_plain`` within 1e-9 of the max; every spectrum bin and
+    correlation sample written once."""
+    n = 1 << bits
+    assert cf.gcc_schedule(n, mics) == 2048
+    rng = np.random.default_rng(bits * 100 + scenes * 10 + mics)
+    sig = rng.standard_normal((scenes, mics, n // 2 + 3000))
+    pi, pj = _pairs(mics)
+    mask = cf.band_mask(n, (300.0, 3400.0), 44100.0,
+                        dtype=torch.float64).numpy()
+    got = gcc_spectra_model(sig, pi, pj, n, mask)
+    want = cf.gcc_all_pairs_plain(torch.from_numpy(sig), pi, pj, n,
+                                  torch.from_numpy(mask)).numpy()
+    assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
+
+
+def test_port_matches_jax_package_at_2_21():
+    """The port's K1 and K9 wrappers at 2^21 on the CPU (their plain twins,
+    the functions the card's kernels are held to) against the JAX
+    package's ``gcc_phat_all_pairs`` (ops/gccphat.py:123) and
+    ``phat_correlation`` (:98) on the same float64 rows, within 1e-9 of
+    the max: 4 mics of a 23.7 s recording's length at 44.1 kHz with the
+    band, and one pair through K4a's spectra and K9."""
+    import jax.numpy as jnp
+
+    from pyaudiolocalization_tpu.ops import gccphat as jgcc
+    from pyaudiolocalization_tpu_torch.ops import gccphat as tgcc
+    n = 1 << 21
+    rng = np.random.default_rng(2021)
+    sig = rng.standard_normal((4, 1_046_019))
+    pi, pj = _pairs(4)
+    band = (300.0, 3400.0)
+    want = np.asarray(jgcc.gcc_phat_all_pairs(
+        jnp.asarray(sig), np.asarray(pi), np.asarray(pj), nfft=n, band=band,
+        fs=44100.0))
+    got = tgcc.gcc_phat_all_pairs(torch.from_numpy(sig), pi, pj, nfft=n,
+                                  band=band, fs=44100.0).numpy()
+    assert got.shape == want.shape == (6, n)
+    assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
+    want = np.asarray(jgcc.phat_correlation(jnp.asarray(sig[0]),
+                                            jnp.asarray(sig[1]), nfft=n))
+    spec = cf.fft_real(torch.from_numpy(sig[:2]), n)
+    mask = cf.band_mask(n, None, None, dtype=torch.float64)
+    got = cf.whitened_corr(spec[:1], spec[1:], mask, n)[0].numpy()
     assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
 
 
@@ -1175,14 +1307,22 @@ def test_corr_block_matches_whitened_corr(n):
     (4, 2, 1), (128, 4, 1), (4096, 4, 1), (4096, 8, 1), (4096, 10, 1),
     (4096, 11, 0), (2048, 24, 1), (2048, 26, 0), (8192, 3, 128),
     (65536, 4, 256), (65536, 10, 256), (65536, 11, 0), (1 << 18, 8, 0),
-    (1 << 19, 4, 1024), (1 << 20, 2, 0), (1 << 21, 4, 0)])
+    (1 << 19, 4, 1024), (1 << 20, 2, 0), (1 << 21, 4, 2048),
+    (1 << 21, 64, 2048), (1 << 22, 4, 2048), (1 << 23, 4, 0)])
 def test_gcc_schedule_rule(n, mics, want):
-    """K1's schedule (``gcc_schedule``) is K2's GCC stage's
+    """K1's schedule (``gcc_schedule``) up to 2^20 is K2's GCC stage's
     (``scene_stages``), one rule: one block up to 4,096 where the
     twiddles, a scene's widest span of packed rows and a spare row fit one
-    block's shared memory; above, the split; else the passes."""
+    block's shared memory; above, the split; else the passes.  Above 2^20
+    K1 alone takes K4a's split, n1 = 2,048, at any mic count (its row pass
+    holds one strip), to 2^22; the passes above."""
     got = cf.gcc_schedule(n, mics)
-    assert got == want == cf.scene_stages(n, mics)[1]
+    assert got == want
+    if n <= cf.STAGE_SPLIT_MAX:
+        assert got == cf.scene_stages(n, mics)[1]
+    else:
+        assert cf.scene_stages(n, mics) == (0, 0)
+        assert got == cf._split_n1(n)
     if n <= cf.FFT_REAL_ONE_BLOCK:
         smem = 8 * (n // 2 + ((mics + 1) // 2 + 1) * n)
         assert (smem <= cf.SMEM_OPTIN) == (got == 1)
@@ -1190,14 +1330,15 @@ def test_gcc_schedule_rule(n, mics, want):
 
 @pytest.mark.parametrize("n,want", [
     (4, 1), (128, 1), (4096, 1), (8192, 128), (65536, 256), (131072, 512),
-    (1 << 20, 1024), (1 << 21, 0)])
+    (1 << 20, 1024), (1 << 21, 2048), (1 << 22, 2048), (1 << 23, 0)])
 def test_corr_schedule_rule(n, want):
     """K9's schedule (``corr_schedule``): one block up to 4,096, K4a's
-    split up to 2^20 (its row pass's one strip fits at 1024 x 1024), the
-    passes above."""
-    assert cf.corr_schedule(n) == want
+    split up to 2^22 (its row pass's one strip of ``split_strips`` fits at
+    every split: 16 rows, 8 at 2,048 x 2,048), the passes above."""
+    assert cf.corr_schedule(n) == want == cf._split_n1(n)
     if 1 < want:
-        assert cf._row_pass_smem(want, n // want, 1) <= cf.SMEM_OPTIN
+        rows = cf.split_strips(want, n // want)[1]
+        assert cf._row_pass_smem(want, n // want, 1, rows) <= cf.SMEM_OPTIN
 
 
 # ---------------------------------------------------------------------------

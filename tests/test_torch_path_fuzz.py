@@ -6,9 +6,9 @@ half launches the kernels its ``route`` names with that route's schedule,
 and together they reach every sweep route the card runs: K5 fused, K3 then
 K2 on the split, K1 in one block, on the split and on the radix-2 passes,
 K2 / K3 / K5 in one block at nfft <= 4,096 and K2 / K5's GCC on the passes
-that remain there (12 mics at 4,096), and K4a + K9 on a single pair: K4a
-on its split up to 2^22 (n1 = 2,048 at 2^21 and 2^22), K9 on its radix-2
-passes above 2^20.  The stubbed kernels write nothing, so the
+that remain there (12 mics at 4,096), and K4a + K9 on a single pair,
+both on their split up to 2^22 (n1 = 2,048 at 2^21 and 2^22).  The
+stubbed kernels write nothing, so the
 solver tails downstream of them are stubbed too; the fuzz's plain half and
 its comparisons run on the card only."""
 
@@ -140,4 +140,5 @@ def test_configurations_reach_every_sweep_route():
     assert {lab.split()[0] for _, lab in k4a} == {"block", "split"}
     k9 = stages("whitened_corr")
     assert (1 << 20, "split 1024") in k9
-    assert (1 << 21, "passes") in k9 and (1 << 22, "passes") in k9
+    assert (1 << 21, "split 2048") in k9 and (1 << 22, "split 2048") in k9
+    assert not any(lab == "passes" for _, lab in k9)

@@ -4,12 +4,14 @@ returns False), the kernel library is a stub, and every launch through
 ``cuda_fft._launch`` is recorded with its arguments instead of run.  The
 outputs are left as allocated, so these tests read the launches only.
 
-They hold K4a's, K4b's and K6's split up to 2^22 (strips of 8 at 2,048)
-and their radix-2 passes above, K1's, K2's, K3's, K5's and K9's routes
-above 2^20, the row chunks of K4a, K4b, K6 and K9, the scene chunks of K2, K3 and K5 at the sweep's 65,535 grid
+They hold K4a's, K4b's, K6's, K1's and K9's split up to 2^22 (strips of
+8 at 2,048; K1 through its mic rows' spectra above 2^20) and their
+radix-2 passes above, K2's, K3's and K5's passes above 2^20, the row
+chunks of K4a, K4b, K6 and K9, the scene chunks of K2, K3 and K5 at the sweep's 65,535 grid
 limit, their one-block schedule up to 4,096 points and its scratch, the exact-length parity path (K7 only), the api from recorded files
 (K1, K4a, K4b), the compat layer's single pair (K4a + K9 at a power of
-two, K7 otherwise), array calibration (K1 over the events at a power of
+two, K7 otherwise), the api from a recording long enough for K1 at 2^21
+(one launch on the split), array calibration (K1 over the events at a power of
 two, K7 at the exact length) and beamformed extraction (no kernel).
 """
 
@@ -131,34 +133,78 @@ def test_fft_real_schedule_by_length(launches, nfft, n1, strips):
     assert args[5:7] == strips
 
 
-@pytest.mark.parametrize("nfft", [1 << 20, 1 << 21, 1 << 22])
-def test_other_kernels_keep_their_routes_above_2_20(launches, nfft):
-    """K4a's, K4b's and K6's split reaches 2^22; K1, K2, K3, K5 (4 mics a
-    scene) and K9 keep theirs: above 2^20 the radix-2 passes (n1 = 0); at
-    2^20 K9's split (1,024) and, for the others, the passes, as their row
-    passes' strips do not fit there (``scene_stages``)."""
+def _route(kernel, nfft):
+    """Calls ``kernel`` once at nfft on 4 mics a scene (or one row pair)
+    and returns its launch's arguments."""
     from pyaudiolocalization_tpu_torch.parallel.sweep import _pairs
     pi, pj = _pairs(4)
     length = nfft // 2 + 100
     mask = torch.ones(nfft // 2 + 1)
-    cf.gcc_all_pairs(torch.zeros(1, 4, length), pi, pj, nfft, mask)
-    cf.gcc_windowed(torch.zeros(1, 4, length), pi, pj, nfft, 1, mask)
     base, fade = torch.zeros(1, length), torch.ones(length)
     tau, gains = torch.zeros(1, 4, 1), torch.ones(1, 4, 1)
-    cf.delay_sum(base, tau, gains, nfft, length, fade, True)
-    cf.scene_windowed(base, tau, gains, pi, pj, nfft, length, 1, fade, mask)
     spec = torch.zeros(1, nfft // 2 + 1, dtype=torch.complex64)
-    cf.whitened_corr(spec, spec, mask, nfft)
+    calls = {
+        "gcc_all_pairs": lambda: cf.gcc_all_pairs(
+            torch.zeros(1, 4, length), pi, pj, nfft, mask),
+        "gcc_windowed": lambda: cf.gcc_windowed(
+            torch.zeros(1, 4, length), pi, pj, nfft, 1, mask),
+        "delay_sum": lambda: cf.delay_sum(base, tau, gains, nfft, length,
+                                          fade, True),
+        "scene_windowed": lambda: cf.scene_windowed(
+            base, tau, gains, pi, pj, nfft, length, 1, fade, mask),
+        "whitened_corr": lambda: cf.whitened_corr(spec, spec, mask, nfft)}
+    calls[kernel]()
+
+
+# Where each kernel's n1 sits in its launch's arguments.
+N1_ARGS = {"gcc_all_pairs": slice(4, 6), "gcc_windowed": slice(4, 6),
+           "delay_sum": slice(7, 9), "scene_windowed": slice(7, 10),
+           "whitened_corr": slice(3, 5)}
+
+
+@pytest.mark.parametrize("kernel,nfft,n1", [
+    (k, n, 0) for k in ("gcc_windowed", "delay_sum", "scene_windowed")
+    for n in (1 << 20, 1 << 21, 1 << 22)] + [
+    ("gcc_all_pairs", 1 << 20, 0), ("gcc_all_pairs", 1 << 21, 2048),
+    ("gcc_all_pairs", 1 << 22, 2048), ("gcc_all_pairs", 1 << 23, 0),
+    ("whitened_corr", 1 << 20, 1024), ("whitened_corr", 1 << 21, 2048),
+    ("whitened_corr", 1 << 22, 2048), ("whitened_corr", 1 << 23, 0)])
+def test_other_kernels_keep_their_routes_above_2_20(launches, kernel, nfft,
+                                                    n1):
+    """K4a's, K4b's and K6's split reaches 2^22, and so do K1's and K9's:
+    n1 = 2,048 at 2^21 and 2^22 (K1 at any mic count, through its mic
+    rows' spectra), the radix-2 passes (n1 = 0) at 2^23.  K2, K3 and K5 (4
+    mics a scene) keep the passes from 2^20 on, as K1 does at 2^20: their
+    row passes' strips do not fit there (``scene_stages``); K9 takes its
+    split (1,024) at 2^20."""
+    _route(kernel, nfft)
+    (args,) = _named(launches, kernel)
+    assert args[N1_ARGS[kernel]] == (nfft,) + (n1,) * (
+        N1_ARGS[kernel].stop - N1_ARGS[kernel].start - 1)
+    assert cf.scene_stages(min(nfft, 1 << 22), 4) == (0, 0)
+
+
+@pytest.mark.parametrize("nfft,strips", [(1 << 21, (8, 16, 16)),
+                                         (1 << 22, (8, 8, 8))])
+def test_k1_and_k9_above_2_20_take_k4a_strips(launches, nfft, strips):
+    """Above 2^20 K1 launches with K4a's strips — 8 columns, K4a's pass-2
+    strip (``fft_real_rows_strip``) and the row pass's (16 rows at 2^21, 8
+    at 2^22) — K4a's packed rows and the cross rows in one buffer, and the
+    spectra in a second; K9 with the same column and row strips; up to
+    2^20 K1's split passes no strip."""
+    _route("gcc_all_pairs", nfft)
+    _route("whitened_corr", nfft)
     (k1,) = _named(launches, "gcc_all_pairs")
-    (k2,) = _named(launches, "gcc_windowed")
-    (k3,) = _named(launches, "delay_sum")
-    (k5,) = _named(launches, "scene_windowed")
+    assert k1[6:9] == strips
+    spec0, spec1, cpl0, cpl1 = k1[15:19]
+    assert spec0 == cpl0 and None not in (spec0, spec1) and cpl1 is None
     (k9,) = _named(launches, "whitened_corr")
-    assert (k1[4:6], k2[4:6]) == ((nfft, 0), (nfft, 0))
-    assert k3[7:9] == (nfft, 0) and k5[7:10] == (nfft, 0, 0)
-    assert k9[3:5] == (nfft, 1024 if nfft == 1 << 20 else 0)
-    assert cf.scene_stages(nfft, 4) == (0, 0)
-    assert cf.gcc_schedule(nfft, 4) == 0
+    assert k9[5:7] == (strips[0], strips[2])
+    launches.clear()
+    cf.gcc_all_pairs(torch.zeros(1, 4, 50000), [0], [1], 65536,
+                     torch.ones(32769))
+    (k1,) = _named(launches, "gcc_all_pairs")
+    assert k1[5:9] == (256, 0, 0, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -385,6 +431,42 @@ def test_recorded_api_reaches_k1_k4a_k4b(launches, tmp_path, monkeypatch):
     assert set(names) == {"gcc_all_pairs", "fft_real", "bootstrap_peaks"}
     assert cf.LAUNCHES["gcc_all_pairs"] == 1
     assert cf.LAUNCHES["fft_real"] == cf.LAUNCHES["bootstrap_peaks"] == 6
+
+
+def test_recorded_api_at_2_21_launches_k1_once_on_the_split(
+        launches, tmp_path, monkeypatch):
+    """localize_sound_source from four WAV files of 1,100,000 samples at 8
+    kHz (past 2^20, so the GCC transforms at 2^21 with
+    ``max_expected_delay`` 0.05): one K1 launch over the scene, on the
+    split n1 = 2,048 (K4a's passes into the spectra, K9's row pass, the
+    column pass), never K1's radix-2 passes; the permutation null K4a and
+    K4b on their split.  Kernels stubbed as in
+    ``test_recorded_api_reaches_k1_k4a_k4b``."""
+    import copy
+
+    import pyaudiolocalization_tpu_torch as tpkg
+    from pyaudiolocalization_tpu_torch import api
+    monkeypatch.setattr(api.uncertainty_ops, "position_uncertainty",
+                        lambda *a, **k: None)
+    from pyaudiolocalization_tpu_torch.utils.audio_io import write_wav
+    rng = np.random.default_rng(1)
+    base = rng.uniform(-0.5, 0.5, 1_100_000)
+    paths = []
+    for k, shift in enumerate((0, 3, 5, 9)):
+        paths.append(str(tmp_path / f"mic{k}.wav"))
+        write_wav(paths[-1], np.roll(base, shift), 8000)
+    cfg = copy.deepcopy(tpkg.DEFAULT_CONFIG)
+    cfg.update(fs=8000, duration=0.25)
+    cfg["localization"].update(lag_mode="physical", sync_mode="none",
+                               num_bootstrap=4, visualize_correlation=False)
+    tpkg.localize_sound_source(cfg, audio_files=paths, use_simulation=False,
+                               device="cpu", dtype=torch.float32)
+    (k1,) = _named(launches, "gcc_all_pairs")
+    assert k1[1:6] == (1, 4, 1_100_000, 1 << 21, 2048)
+    assert cf.LAUNCHES["gcc_all_pairs"] == 1
+    assert {n for n, _ in launches} == {"gcc_all_pairs", "fft_real",
+                                        "bootstrap_peaks"}
+    assert {a[4] for a in _named(launches, "fft_real")} == {2048}
 
 
 @pytest.mark.parametrize("n2,want", [(1025, ["fft_real", "whitened_corr"]),

@@ -15,8 +15,8 @@ tpu_kernel_check.py's check (b), the GCC beyond the split's strips), K2 /
 K3 / K5 in one block at nfft <= 4,096 and, with 12 mics at 4,096, K2 and
 K5's GCC stage on the passes that remain where a scene's rows do not fit
 one block, and K4a + K9 through ``models.tdoa.get_time_delays_phat`` at
-random lengths, above 2^20 K4a on its split of 8-wide strips (2^21,
-2^22) and K9 on its radix-2 passes.
+random lengths, above 2^20 both on their split of 8-wide strips (2^21,
+2^22: "split 2048").
 
 For each configuration the scenes are drawn and rendered on the card
 (K3), then localized twice: on the card (the kernels: the fused K5 path
@@ -95,9 +95,9 @@ SWEEPS = (
     ("srp", False, 64, 16000.0, 65536, 2),  # K1 beyond the split's strips
     ("lm", False, 12, 16000.0, 4096, 4),    # K2 / K5's GCC on the passes
 )
-# (fs, transform) of the single pairs: one block, the split, 2^20 (K9's
-# longest split), and 2^21 and 2^22, where K4a's split takes strips of 8
-# and K9 the radix-2 passes.  A pair added later goes last, so that the
+# (fs, transform) of the single pairs: one block, the split, 2^20 (the
+# longest split of strips of 16), and 2^21 and 2^22, where K4a's and K9's
+# split takes strips of 8.  A pair added later goes last, so that the
 # earlier configurations keep their draws.
 PAIRS = ((8000.0, 4096), (16000.0, 65536), (48000.0, 1 << 20),
          (44100.0, 1 << 21), (48000.0, 1 << 22))

@@ -43,12 +43,14 @@ bound.  ``gcc`` (``--gcc``) times K1 at the api's, no_gate's,
 an odd edge's, a passes shape and K2's one-block shapes (``GCC_SHAPES``)
 and K9 at the single pair's lengths and an edge (``CORR_SHAPES``), each
 held against its twin, by CUDA events and in device time by kernel,
-beside the twin's times (cuFFT).  ``--long`` times only K4a, K4b and K6
-at their shapes above 2^20 (two rows of a 23.7 s pair at 2^21 and one
-row at 2^22 against ``torch.fft.rfft``; the pair's null at 64 and 1,000
-draws and one row at 2^22), and ``--recording`` runs chip_smoke.py's 4 x
-24 s recording (phase 10, ``long_recording``) from this tree: its wall
-time cold and warm and its device time by kernel.  ``--trace`` (alone)
+beside the twin's times (cuFFT).  ``--long`` times only K4a, K4b, K6,
+K1 and K9 at their shapes above 2^20 (two rows of a 23.7 s pair at 2^21
+and one row at 2^22 against ``torch.fft.rfft``; the pair's null at 64
+and 1,000 draws and one row at 2^22; K1 at the 23.7 s recording's 4 and
+8 mics at 2^21 and 4 mics at 2^22, K9 at one pair of each), and
+``--recording`` runs chip_smoke.py's 4 x 24 s recording (phase 10,
+``long_recording``) from this tree at 2^21 and 2^22: its wall time cold
+and warm and its device time by kernel.  ``--trace`` (alone)
 counts the ``device_ms`` traces that miss a kernel, with and without
 their idle edges (``trace_check``).  ``k10``
 (``--k10``, alone) times K10a (``row_dft``), K10b (``row_stages``) and
@@ -162,7 +164,10 @@ SCENE_TOL = {"scene_windowed": 1e-5, "delay_sum": 2e-5, "gcc_windowed": 1e-6}
 CHUNKS_TOL = 2e-6
 # K1 (scenes or None for one scene, mics, samples, nfft, band) and K9
 # (row pairs, samples, nfft) at chip_smoke.py's phase-3 shapes; the limit
-# is absolute (correlations bounded by 1).
+# is absolute (correlations bounded by 1).  Above 2^20 ("long": the 23.7 s
+# recording's 4 and 8 mics at 2^21, 4 mics at 2^22; K9's pair at each)
+# the limit is GCC_TOL plus the float32 twin's own distance from its
+# float64 run on the same inputs, as chip_smoke.py's phase 3 holds them.
 BAND = (300.0, 3400.0)
 GCC_SHAPES = {"api": (None, 4, 44100, 65536, BAND),
               "no_gate": (None, 4, 44100, 131072, None),
@@ -174,9 +179,13 @@ GCC_SHAPES = {"api": (None, 4, 44100, 65536, BAND),
               "trio": (512, 8, 4000, 4096, BAND),
               "moving": (132, 4, 788, 1024, None),
               "short": (512, 4, 1600, 2048, BAND),
-              "chunks": (21846, 4, 400, 512, BAND)}
+              "chunks": (21846, 4, 400, 512, BAND),
+              "long": (None, 4, LONG, 1 << 21, BAND),
+              "long8": (None, 8, LONG, 1 << 21, BAND),
+              "long22": (None, 4, 2000000, 1 << 22, None)}
 CORR_SHAPES = {"main": (1, 44100, 65536), "no_gate": (1, 44100, 131072),
-               "edge": (3, 3000, 4096)}
+               "edge": (3, 3000, 4096), "long": (1, LONG, 1 << 21),
+               "long22": (1, 2000000, 1 << 22)}
 GCC_TOL = 1e-6
 
 
@@ -599,18 +608,23 @@ def scene(reps: int = 5, log=print) -> dict:
     return out
 
 
-def gcc(reps: int = 5, log=print) -> dict:
+def gcc(reps: int = 5, log=print, min_nfft: int = 0) -> dict:
     """K1 (``gcc_all_pairs``) at ``GCC_SHAPES`` and K9 (``whitened_corr``)
-    at ``CORR_SHAPES``, each held against its twin within ``GCC_TOL`` (K1
-    at "chunks" against its float64 run within ``CHUNKS_TOL``):
-    CUDA-event ms per call (median of three loops) and device ms per call
-    by kernel, the kernel's and the twin's.  Logs one line per case and
-    returns {(name, shape): {"ms", "device", "plain_ms", "plain_device"}}."""
+    at ``CORR_SHAPES`` (those from ``min_nfft`` on), each held against its
+    twin within ``GCC_TOL`` (K1 at "chunks" against its float64 run within
+    ``CHUNKS_TOL``; above 2^20 within ``GCC_TOL`` plus the float32 twin's
+    distance from its float64 run): CUDA-event ms per call (median of
+    three loops) and device ms per call by kernel, the kernel's and the
+    twin's.  Logs one line per case and returns {(name, shape): {"ms",
+    "device", "plain_ms", "plain_device"}}."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = {}
     exact = {}  # the twin in float64 at "chunks"
+    wide = {}   # the twin in float64 above 2^20
     for shape, (scenes, mics, n, nfft, band) in GCC_SHAPES.items():
+        if nfft < min_nfft:
+            continue
         sig = torch.randn((mics, n) if scenes is None else (scenes, mics, n),
                           generator=gen, device=dev)
         pairs = [(i, j) for i in range(mics) for j in range(i + 1, mics)]
@@ -622,12 +636,16 @@ def gcc(reps: int = 5, log=print) -> dict:
             cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
             lambda sig=sig, pi=pi, pj=pj, nfft=nfft, mask=mask:
             cf.gcc_all_pairs_plain(sig, pi, pj, nfft, mask))
+        double = (lambda sig=sig, pi=pi, pj=pj, nfft=nfft, mask=mask:
+                  cf.gcc_all_pairs_plain(sig.double(), pi, pj, nfft,
+                                         mask.double()))
         if shape == "chunks":
-            exact[("gcc_all_pairs", shape)] = (
-                lambda sig=sig, pi=pi, pj=pj, nfft=nfft, mask=mask:
-                cf.gcc_all_pairs_plain(sig.double(), pi, pj, nfft,
-                                       mask.double()))
+            exact[("gcc_all_pairs", shape)] = double
+        elif nfft > cf.STAGE_SPLIT_MAX:
+            wide[("gcc_all_pairs", shape)] = double
     for shape, (rows, n, nfft) in CORR_SHAPES.items():
+        if nfft < min_nfft:
+            continue
         spec = cf.fft_real_plain(torch.randn((2 * rows, n), generator=gen,
                                              device=dev), nfft)
         a, b = spec[:rows].contiguous(), spec[rows:].contiguous()
@@ -638,10 +656,22 @@ def gcc(reps: int = 5, log=print) -> dict:
             cf.whitened_corr(a, b, mask, nfft),
             lambda a=a, b=b, nfft=nfft, mask=mask:
             cf.whitened_corr_plain(a, b, mask, nfft))
+        if nfft > cf.STAGE_SPLIT_MAX:
+            wide[("whitened_corr", shape)] = (
+                lambda a=a, b=b, nfft=nfft, mask=mask:
+                cf.whitened_corr_plain(a.to(torch.complex128),
+                                       b.to(torch.complex128), mask.double(),
+                                       nfft))
     out = {}
     for (name, shape), (what, call, twin) in cases.items():
         got, ms = time_ms(call, reps)
         want, plain_ms = time_ms(twin, reps)
+        tol = GCC_TOL
+        if (name, shape) in wide:
+            gap = float((want.double() - wide[(name, shape)]()).abs().max())
+            tol += gap
+            log(f"{name} [{shape}]: max |float32 twin - float64 twin| "
+                f"{gap:.3e}, limit {tol:.3e}")
         if (name, shape) in exact:
             ref = exact[(name, shape)]()
             exact_err, _ = check(f"{name} [{shape}] (float64 twin)",
@@ -655,7 +685,7 @@ def gcc(reps: int = 5, log=print) -> dict:
             del ref
         else:
             err, _ = check(f"{name} [{shape}]", got, want,
-                           GCC_TOL / float(want.abs().max()))
+                           tol / float(want.abs().max()))
         del got, want
         res = {"ms": ms, "device": device_ms(call, 3), "plain_ms": plain_ms,
                "plain_device": device_ms(twin, 3)}
@@ -810,15 +840,17 @@ def host_steps(spec: torch.Tensor, log=print, calls: int = HOST_CALLS):
 
 def recording(card: str) -> None:
     """``chip_smoke.long_recording`` of this tree (the 4 x 24 s recording
-    written, read back and localized with the noise null at nfft 2^21, a
-    warm call, the device time by kernel), logged beside ``card``."""
+    written, read back and localized with the noise null at nfft 2^21 and,
+    under ``max_expected_delay=None``, 2^22, a warm call each, the device
+    time by kernel), logged beside ``card``.  A tree whose K1 still runs
+    its radix-2 passes there logs them (``hold_split=False``)."""
     import importlib.util
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   REPO / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     smoke.CARD[0] = card
-    smoke.long_recording(cf, torch, {})
+    smoke.long_recording(cf, torch, {}, hold_split=False)
 
 
 def main() -> int:
@@ -839,8 +871,9 @@ def main() -> int:
                     help="time only K1 and K9 at chip_smoke.py's shapes and "
                          "K2's one-block ones, beside their cuFFT twins")
     ap.add_argument("--long", action="store_true",
-                    help="time only K4a, K4b and K6 at their shapes above "
-                         "2^20 (the split's strips of 8 columns)")
+                    help="time only K4a, K4b, K6, K1 and K9 at their "
+                         "shapes above 2^20 (the split's strips of 8 "
+                         "columns)")
     ap.add_argument("--recording", action="store_true",
                     help="localize chip_smoke.py's 4 x 24 s recording "
                          "(phase 10) cold and warm, with its device time "
@@ -875,6 +908,7 @@ def main() -> int:
             k4a(4 * args.reps, log, LONG_MIN)
             boot(2 * args.reps, log, LONG_MIN)
             k6(2 * args.reps, log, LONG_MIN)
+            gcc(args.reps, log, LONG_MIN)
         if args.recording:
             recording(smi)
         return 0
