@@ -34,14 +34,19 @@ in twelve phases:
    bin in and at a chunk of parity mode's bootstrap (256 x 44,100 bins),
    with its device time and ``torch.sgn``'s; K1
    and K9 at every shape with their device time and the device kernels a
-   call runs, held to their schedule: K1 3 on the split, 1 in one block,
-   and 11 mics at 65,536 on the passes; K9 2 and 1, also at 131,072; above
-   2^20 K1 at 1 x 4 mics of the 23.7 s recording's length and at 8 mics
-   (2^21) and at 4 mics x 2,000,000 samples (2^22), 4 device kernels a
-   call (K4a's two passes into the mic rows' spectra, K9's row pass over
-   pairs of them, the column pass), and K9 at one pair of each length, 2,
-   each held to its float32 twin within the limit plus the twin's own
-   distance from its float64 run, measured in the same run;
+   call runs, held to their route (``cuda_fft.gcc_route``): K1 3 on
+   ``gcc_rows``, 1 in one block; K9 2 and 1, also at 131,072; through the
+   mic rows' spectra on the split K1 at 11 mics x 65,536, 8 mics x 2^18,
+   1 x 4 mics of an 18 s recording (2^20) and of the 23.7 s recording's
+   length and at 8 mics (2^21) and at 4 mics x 2,000,000 samples (2^22),
+   and K2 at the fast path's 4 mics at 2^20, 2^21 and 2^22, 4 device
+   kernels a call (K4a's two passes into the mic rows' spectra, K9's row
+   pass over pairs of them, the column pass), and through them in one
+   block K1 at 128 x 16 mics and K2 and K5 at 512 x 12 mics at 4,096 (2
+   device kernels, K5 3; K5 also at 6 mics x 2^18, 8; K5 bit-equal to K3
+   then K2 on both), and K9 at one pair of each length, 2, each above
+   2^20 (K1 from 2^20) held to its float32 twin within the limit plus the
+   twin's own distance from its float64 run, measured in the same run;
    phase 11's shapes: K1 over segments x subframes, K3 over the moving
    render's 132 frames, K7 at 6 x 4,097 and 28 x 2,049 bins; phase 12's:
    K1 over array calibration's 8 x 4 and 12 x 6 events of 4,800 samples
@@ -143,7 +148,11 @@ in twelve phases:
    memory, a warm call's wall time and its device time by kernel, then
    the same recording under ``max_expected_delay=None`` (nfft 2^22: K1,
    K4a and K6 on their split of 8-wide strips) the same way; neither run
-   launches a radix-2 pass of K1;
+   launches a radix-2 pass of K1; 4-mic recordings at 44.1 kHz (no
+   resampling) of 16 s on the full core (K1 at 2^20) and of 16, 30 and
+   60 s on the fast path (K2 at 2^20, 2^21 and 2^22), the GCC through the
+   mic rows' spectra, each the same way, none with a radix-2 pass of K1
+   or K2;
    ``compat`` on the card (speed of sound, the single pair at the exact
    length by K7 and at a power of two by K4a + K9, the permutation null by
    K4a + K4b within 5 %, the significance metrics, ``noise_reduction`` by
@@ -271,7 +280,7 @@ NULL_DRAWS = 1000
 # so that adding cases leaves every earlier case's inputs as they were).
 ADDED = {("delay_sum", "odd"): 1, ("gcc_windowed", "odd"): 1,
          ("noise_bootstrap_peaks", "no_gate"): 1, ("scene_windowed", "api"): 1,
-         ("scene_windowed", "odd"): 1, ("gcc_all_pairs", "passes"): 2,
+         ("scene_windowed", "odd"): 1, ("gcc_all_pairs", "mics11"): 2,
          ("whitened_corr", "no_gate"): 2, ("fft_real", "long"): 3,
          ("whiten", "boot"): 3, ("delay_sum", "chunks"): 3,
          ("gcc_windowed", "chunks"): 3, ("scene_windowed", "chunks"): 3,
@@ -290,7 +299,14 @@ ADDED = {("delay_sum", "odd"): 1, ("gcc_windowed", "odd"): 1,
          ("noise_bootstrap_peaks", "passes23"): 8,
          ("gcc_all_pairs", "long"): 9, ("gcc_all_pairs", "long8"): 9,
          ("gcc_all_pairs", "long22"): 9, ("whitened_corr", "long"): 9,
-         ("whitened_corr", "long22"): 9}
+         ("whitened_corr", "long22"): 9, ("gcc_all_pairs", "spectra20"): 10,
+         ("gcc_all_pairs", "spectra18"): 10,
+         ("gcc_all_pairs", "spectra_block"): 10,
+         ("gcc_windowed", "fast20"): 10, ("gcc_windowed", "fast21"): 10,
+         ("gcc_windowed", "fast22"): 10,
+         ("gcc_windowed", "spectra_block"): 10,
+         ("scene_windowed", "spectra_block"): 10,
+         ("scene_windowed", "spectra18"): 10}
 # The sweep across K2's, K3's and K5's scene-chunk boundary: one scene past
 # the 65,535 grid rows of one launch at 4 mics (3 couples), at nfft 512.
 CHUNK_SCENES = 21846
@@ -305,6 +321,10 @@ LONG_DRAWS = 64
 # K6: its first pass draws the rows).
 LONG22 = (2000000, 1 << 22)
 PASSES23 = (4200000, 1 << 23)
+# Phase 3's cases of the GCCs' spectra routes: one scene's samples at the
+# fast path's (and the full core's) 2^20, 2^21 and 2^22 under
+# DEFAULT_CONFIG (18.1, 34.0 and 68.0 s at 44.1 kHz).
+FAST_SAMPLES = {1 << 20: 800000, 1 << 21: 1500000, 1 << 22: 3000000}
 PASSES23_KERNELS = {"fft_real": 25, "bootstrap_peaks": 48,
                     "noise_bootstrap_peaks": 47}
 # The card's name and power limit (nvidia-smi), set by main().
@@ -312,6 +332,10 @@ CARD = ["not read"]
 # Device kernels a call of K3 or K2 runs at phase 3's one-block shapes
 # (nfft <= 4,096: one a scene chunk; K5 twice as many).
 ONE_BLOCK_KERNELS = {"trio": 1, "short": 1, "chunks": 2}
+# Device kernels a call of K5 runs at phase 3's spectra-route shapes: at
+# 4,096 ``render_block``, ``fft_real_block``, ``corr_block``; at 2^18 the
+# render's split (3) and finalize, then the GCC's four.
+SPECTRA_K5_KERNELS = {"spectra_block": 3, "spectra18": 8}
 
 # name -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -576,11 +600,14 @@ def kernel_phase(cf, torch):
     # axis: bench_gcc_phat's batch (recorded; PHAT over every bin), the
     # reverberant SRP sweep's and the multi-source cube's, and an odd edge
     # (odd scenes, mics and pairs).  The split at 65,536 and 131,072 (3
-    # device kernels a call), one block at 4,096 and below (1); "passes":
-    # 11 mics at 65,536, whose strips do not fit the split.  Above 2^20
-    # (4 device kernels a call: K4a's two passes into the mic rows'
-    # spectra, K9's row pass reading pairs of them, the column pass): the
-    # 23.7 s recording's 4 mics and 8 mics at 2^21, 4 mics at 2^22.
+    # device kernels a call), one block at 4,096 and below (1).  Through
+    # the mic rows' spectra on the split (4 device kernels a call: K4a's
+    # two passes into the spectra, K9's row pass reading pairs of them,
+    # the column pass): "mics11", 11 mics at 65,536, whose strips do not
+    # fit ``gcc_rows``; the 23.7 s recording's 4 mics and 8 mics at 2^21, 4
+    # mics at 2^22; 4 mics of an 18 s recording at 2^20 (DEFAULT_CONFIG's
+    # full core) and 8 mics at 2^18.  Through them in one block (2 device
+    # kernels): 128 scenes of 16 mics at 4,096.
     for tag, (b, m, length, nfft, band) in {
             "api": (None, 4, N, NFFT, (300.0, 3400.0)),
             "no_gate": (None, 4, N, 2 * NFFT, None),
@@ -590,10 +617,15 @@ def kernel_phase(cf, torch):
             "multi": (MULTI_SCENES, 8, multi.num_samples, multi.nfft,
                       (300.0, 3400.0)),
             "edge": (5, 3, 1500, 2048, (300.0, 3400.0)),
-            "passes": (None, 11, N, NFFT, (300.0, 3400.0)),
+            "mics11": (None, 11, N, NFFT, (300.0, 3400.0)),
             "long": (None, 4, LONG_SAMPLES, LONG_NFFT, (300.0, 3400.0)),
             "long8": (None, 8, LONG_SAMPLES, LONG_NFFT, (300.0, 3400.0)),
-            "long22": (None, 4) + LONG22 + (None,)}.items():
+            "long22": (None, 4) + LONG22 + (None,),
+            "spectra20": (None, 4, FAST_SAMPLES[1 << 20], 1 << 20,
+                          (300.0, 3400.0)),
+            "spectra18": (None, 8, 200000, 1 << 18, (300.0, 3400.0)),
+            "spectra_block": (MULTI_SCENES, 16, 4000, 4096,
+                              (300.0, 3400.0))}.items():
         draw("gcc_all_pairs", tag)
         pi, pj = pairs(m)
         sig = (randn(m, length) if b is None
@@ -602,7 +634,7 @@ def kernel_phase(cf, torch):
         scenes = b or 1
         nbytes = 4 * (scenes * (m * length + len(pi) * nfft) + nfft // 2 + 1)
         tol = 1e-6
-        if nfft > cf.STAGE_SPLIT_MAX:
+        if nfft >= cf.STAGE_SPLIT_MAX:
             tol += twin_gap(f"gcc_all_pairs[{tag}]", lambda x, w: (
                 cf.gcc_all_pairs_plain(x, pi, pj, nfft, w)), sig, mask)
         res = compare(
@@ -611,10 +643,9 @@ def kernel_phase(cf, torch):
             lambda: cf.gcc_all_pairs_plain(sig, pi, pj, nfft, mask),
             tol=tol, reps=20 if scenes == 1 else 3,
             least=bound(nbytes, gcc_ops(scenes, m, len(pi), nfft)))
-        n1 = cf.gcc_schedule(nfft, m)
-        log_device(f"gcc_all_pairs[{tag}] (schedule n1={n1})",
+        log_device(f"gcc_all_pairs[{tag}] ({route_note(cf, nfft, m)})",
                    lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
-                   kernels=gcc_kernels(cf, nfft, n1))
+                   kernels=gcc_kernels(cf, nfft, m))
         if tag == "main":
             results["gcc_all_pairs"] = res
         del sig
@@ -622,7 +653,11 @@ def kernel_phase(cf, torch):
     # K2: windowed GCC.  Main: the sweep's (512 scenes, wq 6); also the
     # api fast path's single scene (wq 21), an odd edge shape, the short
     # sweep's 512 scenes at 2,048 and the chunks at 512 (one device kernel
-    # a launch, ``window_block``).
+    # a launch, ``window_block``).  Through the mic rows' spectra: the
+    # api fast path's single scene of 4 mics at 2^20, 2^21 and 2^22 (18 s
+    # to 68 s recordings; 4 device kernels a call, ``window_cols`` last)
+    # and 512 scenes of 12 mics at 4,096 (2 device kernels, ``corr_block``
+    # with the window's epilogue).
     for tag, (b, m, length, nfft, wq) in {
             "main": (SWEEP_SCENES, 4, N, NFFT, 6),
             "api": (1, 4, N, NFFT, 21),
@@ -630,12 +665,21 @@ def kernel_phase(cf, torch):
             "edge": (2, 3, 3000, 4096, 2),
             "chunks": (CHUNK_SCENES, 4, 400, 512, 2),
             "short": (SWEEP_SCENES, 4, short.num_samples, short.nfft,
-                      short_wq)}.items():
+                      short_wq),
+            "fast20": (1, 4, FAST_SAMPLES[1 << 20], 1 << 20, 21),
+            "fast21": (1, 4, FAST_SAMPLES[1 << 21], 1 << 21, 21),
+            "fast22": (1, 4, FAST_SAMPLES[1 << 22], 1 << 22, 21),
+            "spectra_block": (SWEEP_SCENES, 12, 4000, 4096, 2)}.items():
         draw("gcc_windowed", tag)
         pi, pj = pairs(m)
         sig = randn(b, m, length).contiguous()
         mask = cf.band_mask(nfft, (300.0, 3400.0), FS, device=dev)
         p = len(pi)
+        new_route = tag.startswith(("fast", "spectra"))
+        tol = 2e-6 if tag == "chunks" else 1e-6
+        if nfft > cf.STAGE_SPLIT_MAX:
+            tol += twin_gap(f"gcc_windowed[{tag}]", lambda x, w: (
+                cf.gcc_windowed_plain(x, pi, pj, nfft, wq, w)[0]), sig, mask)
         # "chunks": float32 rounding over 131,076 rows of 512 lags needs
         # 2e-6, and its margin is small.  `window_block` reads 8.7e-7
         # from the float32 twin on these inputs (the radix-2 passes 1.6e-6)
@@ -647,18 +691,20 @@ def kernel_phase(cf, torch):
             f"gcc_windowed[{tag}] B={b} M={m} P={p} nfft={nfft} wq={wq}",
             lambda: cf.gcc_windowed(sig, pi, pj, nfft, wq, mask),
             lambda: cf.gcc_windowed_plain(sig, pi, pj, nfft, wq, mask),
-            tol=2e-6 if tag == "chunks" else 1e-6, reps=3 if b > 1 else 20,
+            tol=tol, reps=3 if b > 1 else 20,
             least=scene_bound("gcc_windowed", b, m, 0, 0, length, nfft, wq,
                               0))
-        if tag in ("main", "api", "short", "chunks"):
-            log_device(f"gcc_windowed[{tag}]",
+        if tag in ("main", "api", "short", "chunks") or new_route:
+            log_device(f"gcc_windowed[{tag}] ({route_note(cf, nfft, m)})",
                        lambda: cf.gcc_windowed(sig, pi, pj, nfft, wq, mask),
-                       kernels=ONE_BLOCK_KERNELS.get(tag))
+                       kernels=gcc_kernels(cf, nfft, m) if new_route
+                       else ONE_BLOCK_KERNELS.get(tag))
         if tag == "chunks":
             per_call(cf, "gcc_windowed", lambda: cf.gcc_windowed(
                 sig, pi, pj, nfft, wq, mask), 2)
         if tag == "main":
             results["gcc_windowed"] = res
+        del sig
 
     # K4a: the bootstrap's and the api's single row (main), no_gate's at
     # 131,072, the single pair's two rows, 1024 rows of phase 7's length
@@ -897,10 +943,9 @@ def kernel_phase(cf, torch):
                 lambda: cf.gcc_all_pairs_plain(sig, pi, pj, nfft, mask),
                 tol=1e-6, reps=20,
                 least=bound(nbytes, gcc_ops(b, m, len(pi), nfft)))
-        n1 = cf.gcc_schedule(nfft, m)
-        log_device(f"gcc_all_pairs[{tag}] (schedule n1={n1})",
+        log_device(f"gcc_all_pairs[{tag}] ({route_note(cf, nfft, m)})",
                    lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
-                   kernels=gcc_kernels(cf, nfft, n1))
+                   kernels=gcc_kernels(cf, nfft, m))
 
     # K9: whitened correlation of two K4a spectra, no band
     # (phat_correlation).  Main: the single pair at nfft 65,536; no_gate's
@@ -940,9 +985,13 @@ def kernel_phase(cf, torch):
     # (22 paths, wq 21) and an odd mic count on the split; edge: out ==
     # nfft in one block; the short sweep's 512 scenes at 2,048 and the
     # chunks at 512 (two device kernels a launch, ``render_block`` and
-    # ``window_block``).  Fused and split must agree to 1e-6 with equal
-    # argmax: they run the same stage code; at the short sweep's shape and
-    # across the chunks to the bit.
+    # ``window_block``).  Through the mic rows' spectra: 512 scenes of 12
+    # mics at 4,096 (``render_block``, K4a's ``fft_real_block`` over the
+    # finished signals, ``corr_block``: 3 device kernels) and one scene of
+    # 6 mics at 2^18 (the render's split and finalize, then the GCC's 4: 8).
+    # Fused and split must agree to 1e-6 with equal argmax: they run the
+    # same stage code; at the short sweep's shape, across the chunks and
+    # on the spectra routes to the bit.
     for tag, (b, m, paths, total, out, nfft, wq) in {
             "main": (SWEEP_SCENES, 4, 1, 44356, N, NFFT, 6),
             "api": (1, 4, 22, 50292, N, NFFT, 21),
@@ -950,7 +999,9 @@ def kernel_phase(cf, torch):
             "edge": (2, 2, 2, 1024, 1024, 1024, 2),
             "chunks": (CHUNK_SCENES, 4, 1, 448, 400, 512, 2),
             "short": (SWEEP_SCENES, 4, 1, short.total_samples,
-                      short.num_samples, short.nfft, short_wq)}.items():
+                      short.num_samples, short.nfft, short_wq),
+            "spectra_block": (SWEEP_SCENES, 12, 1, 4094, 4000, 4096, 2),
+            "spectra18": (1, 6, 1, 250000, 200000, 1 << 18, 8)}.items():
         draw("scene_windowed", tag)
         pi, pj = pairs(m)
         base, tau, gains, snr, seeds, fade = scene_inputs(b, m, paths,
@@ -977,7 +1028,7 @@ def kernel_phase(cf, torch):
         if gap > 1e-6:
             raise AssertionError(f"scene_windowed[{tag}] departs from the "
                                  f"split kernels by {gap:.3e}")
-        if tag in ("chunks", "short"):
+        if tag in ("chunks", "short", "spectra_block", "spectra18"):
             if not all(torch.equal(a, c) for a, c in zip(fused, split)):
                 raise AssertionError(f"scene_windowed[{tag}] is not "
                                      "bit-equal to delay_sum -> gcc_windowed")
@@ -987,12 +1038,14 @@ def kernel_phase(cf, torch):
             per_call(cf, "scene_windowed", lambda: cf.scene_windowed(
                 base, tau, gains, pi, pj, nfft, out, wq, fade, mask, snr,
                 seeds), 2)
-        if tag in ("main", "api", "short", "chunks"):
-            log_device(f"scene_windowed[{tag}]",
+        if tag in ("main", "api", "short", "chunks", "spectra_block",
+                   "spectra18"):
+            log_device(f"scene_windowed[{tag}] ({route_note(cf, nfft, m)})",
                        lambda: cf.scene_windowed(base, tau, gains, pi, pj,
                                                  nfft, out, wq, fade, mask,
                                                  snr, seeds), 3,
-                       2 * ONE_BLOCK_KERNELS.get(tag, 0) or None)
+                       SPECTRA_K5_KERNELS.get(tag)
+                       or 2 * ONE_BLOCK_KERNELS.get(tag, 0) or None)
         if tag == "main":
             results["scene_windowed"] = res
     start = time.perf_counter()
@@ -1001,14 +1054,26 @@ def kernel_phase(cf, torch):
     return results
 
 
-def gcc_kernels(cf, nfft, n1):
-    """Device kernels a call of K1 runs at schedule n1: 1 in one block, 3
-    on the split up to ``STAGE_SPLIT_MAX`` (K4a's column pass, K2's row
-    pass, the column pass), 4 above (K4a's two passes into the spectra,
-    K9's row pass, the column pass); None on the passes."""
-    if n1 <= 1:
-        return n1 or None
-    return 4 if nfft > cf.STAGE_SPLIT_MAX else 3
+def gcc_kernels(cf, nfft, mics):
+    """Device kernels a call of K1 or K2 runs at nfft with ``mics`` mics a
+    scene, by its route (``cuda_fft.gcc_route``): 1 in one block a scene,
+    3 on ``gcc_rows`` (K4a's column pass, the row pass, the column pass),
+    4 through the mic rows' spectra on the split (K4a's two passes, K9's
+    row pass, the column pass), 2 through them in one block (K4a's
+    ``fft_real_block``, ``corr_block``); None on the passes."""
+    kind = cf.gcc_route(nfft, mics).kind
+    return {cf.ROUTE_BLOCK: 1, cf.ROUTE_ROWS: 3, cf.ROUTE_SPECTRA: 4,
+            cf.ROUTE_SPECTRA_BLOCK: 2}.get(kind)
+
+
+def route_note(cf, nfft, mics):
+    """'route <name>, n1=<n1>' of K1's and K2's GCC at nfft and ``mics``
+    ('n1=<n1>' from a tree without ``gcc_route``, for the A/B tool's
+    ``--recording``)."""
+    if not hasattr(cf, "gcc_route"):
+        return f"n1={cf.gcc_schedule(nfft, mics)}"
+    route = cf.gcc_route(nfft, mics)
+    return f"route {cf.ROUTE_NAMES[route.kind]}, n1={route.n1}"
 
 
 def per_call(cf, name, fn, want):
@@ -2816,6 +2881,12 @@ def recorded_api(cf, torch, golden, paths, launches):
 # Device kernels of K1's radix-2 passes (``palt_gcc_all_pairs`` at n1 =
 # 0): the packing, the passes, the cross-spectra and the split into pairs.
 K1_PASS_KERNELS = ("pack_rows", "stockham_pass", "gcc_cross", "split_pairs")
+K2_PASS_KERNELS = ("pack_rows", "stockham_pass", "gcc_cross",
+                   "last_pass_window")
+# Step 4's recordings at 44.1 kHz (no resampling): seconds, the path and
+# the nfft its GCC transforms at under DEFAULT_CONFIG.
+SPECTRA_RECORDINGS = ((16, "full core", 1 << 20), (16, "fast path", 1 << 20),
+                      (30, "fast path", 1 << 21), (60, "fast path", 1 << 22))
 
 
 def long_recording(cf, torch, launches, hold_split=True):
@@ -2909,8 +2980,92 @@ def long_recording(cf, torch, launches, hold_split=True):
             f"{passes or 'none'}")
 
 
+def spectra_recordings(cf, torch, launches, hold_spectra=True):
+    """Step 4: 4-mic recordings at 44.1 kHz written by the port's
+    write_wav and read back (no resampling), whose GCC transforms at 2^20
+    to 2^22 under DEFAULT_CONFIG, where K1's and K2's GCC go through the
+    mic rows' spectra (``SPECTRA_RECORDINGS``): a 16 s recording on the
+    full core (K1 at 2^20, the permutation null's K4a and K4b at
+    ``LONG_DRAWS`` draws a pair), and 16,
+    30 and 60 s ones on the windowed fast path (K2 at 2^20, 2^21 and
+    2^22).  For each, each TDOA within 0.5 samples of its injected delay;
+    then a warm call's wall time and one more call's device time by
+    kernel, which holds no kernel of K1's or K2's radix-2 passes
+    (``K1_PASS_KERNELS``, ``K2_PASS_KERNELS``; ``hold_spectra`` False only
+    logs them, for an A/B against a tree that runs them)."""
+    import os
+    import tempfile
+    import numpy as np
+    from pyaudiolocalization_tpu_torch import DEFAULT_CONFIG, api
+    from pyaudiolocalization_tpu_torch import localize_sound_source
+    from pyaudiolocalization_tpu_torch.utils import audio_io
+    rng = np.random.default_rng(20)
+    pairs = [(i, j) for i in range(4) for j in range(i + 1, 4)]
+    want = [float(LONG_DELAYS[j] - LONG_DELAYS[i]) for i, j in pairs]
+    lead = max(LONG_DELAYS)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_spectra_")
+    files = {}
+    for seconds, path, nfft_want in SPECTRA_RECORDINGS:
+        if seconds not in files:
+            n = int(FS) * seconds
+            src = rng.standard_normal(n + lead)
+            files[seconds] = []
+            for k, d in enumerate(LONG_DELAYS):
+                x = src[lead - d:lead - d + n] + 0.1 * rng.standard_normal(n)
+                files[seconds].append(os.path.join(tmp, f"s{seconds}_{k}.wav"))
+                audio_io.write_wav(files[seconds][-1],
+                                   0.9 * x / np.max(np.abs(x)), int(FS))
+        n = int(FS) * seconds
+        nfft = api._physical_nfft(n, FS, 0.05)
+        kernel = "gcc_all_pairs" if path == "full core" else "gcc_windowed"
+        name = f"the {seconds} s recording ({path}, nfft {nfft})"
+        log(f"{name}: GCC {route_note(cf, nfft, 4)}")
+        if nfft != nfft_want:
+            raise AssertionError(f"{name} misses nfft {nfft_want}")
+        cfg = scene_configs(DEFAULT_CONFIG)["default"]
+        cfg["localization"].update(visualize_correlation=False,
+                                   num_bootstrap=LONG_DRAWS)
+        expect, forbid = RECORDED_PATH, RECORDED_FORBID
+        if path != "full core":
+            cfg["localization"]["analyze_correlation"] = False
+            expect = ("gcc_windowed",)
+            forbid = ("gcc_all_pairs", "fft_real", "bootstrap_peaks",
+                      "delay_sum", "scene_windowed")
+
+        def run():
+            return _wall(torch, lambda: localize_sound_source(
+                cfg, audio_files=files[seconds], use_simulation=False,
+                device="cuda", dtype=torch.float32))
+
+        (res, wall), counts = run_path(cf, name, run, expect, forbid)
+        _add(launches, counts)
+        got = [float(t) * FS for t in res["tdoas"]]
+        err = max(abs(a - b) for a, b in zip(got, want))
+        log(f"{name} localized in {wall:.3f} s wall (files read): TDOAs "
+            f"{[round(v, 3) for v in got]} samples, injected {want}, max "
+            f"|diff| {err:.3f} samples {card_note()}")
+        if not err < 0.5 or not all(map(math.isfinite, got)):
+            raise AssertionError(f"{name}: the TDOAs depart from the "
+                                 "injected delays")
+        (_, warm), counts = run_path(cf, f"{name}, warm", run, (kernel,))
+        _add(launches, counts)
+        dev = _load_tool("torch_rowdft_bench").device_ms(run, 1)
+        log(f"{name} warm: {warm:.3f} s wall; device time a call "
+            f"{dev['total']:.3f} ms in {dev['kernels']:g} kernels, by kernel: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+                dev.items(), key=lambda kv: -kv[1])
+                if k not in ("total", "kernels")) + f" {card_note()}")
+        passes = [k for k in dev if any(
+            p in k for p in K1_PASS_KERNELS + K2_PASS_KERNELS)]
+        if passes and hold_spectra:
+            raise AssertionError(f"{name} ran K1's or K2's radix-2 passes: "
+                                 f"{passes}")
+        log(f"{name}: K1's and K2's radix-2 pass kernels in the trace: "
+            f"{passes or 'none'}")
+
+
 def compat_on_card(cf, torch, golden, launches):
-    """Step 4: the compat layer on the card, numpy in and out, against the
+    """Step 5: the compat layer on the card, numpy in and out, against the
     golden's float64 answers: the speed of sound; get_time_delays_phat at
     the exact length (K7) and at a power of two (K4a + K9), each recovering
     the injected fractional delay within one sample (and within one sample
@@ -3008,7 +3163,7 @@ def compat_on_card(cf, torch, golden, launches):
 
 
 def checkpoint_sweep(cf, torch, sweep_golden, launches):
-    """Step 5: run_sweep_checkpointed at bench_full_sweep's spec, 4 chunks
+    """Step 6: run_sweep_checkpointed at bench_full_sweep's spec, 4 chunks
     x 512 scenes: uninterrupted, then stopped after chunk 2 by a log_fn
     that raises, then resumed; the resumed results equal the
     uninterrupted run's to the bit, K5 launches once a chunk, and the
@@ -3089,7 +3244,7 @@ def checkpoint_sweep(cf, torch, sweep_golden, launches):
 
 def recorded_phase(cf, torch, golden, sweep_golden, launches):
     """Phase 10: recorded audio, the compat layer and the checkpointed
-    sweep (steps 1-5 above), each step a ``utils.profiling.stage``, the
+    sweep (steps 1-6 above), each step a ``utils.profiling.stage``, the
     stage report at the end."""
     from pyaudiolocalization_tpu_torch.utils import profiling
     start = time.perf_counter()
@@ -3100,6 +3255,8 @@ def recorded_phase(cf, torch, golden, sweep_golden, launches):
         recorded_api(cf, torch, golden, paths, launches)
     with profiling.stage("phase 10: the 24 s recording"):
         long_recording(cf, torch, launches)
+    with profiling.stage("phase 10: the spectra routes' recordings"):
+        spectra_recordings(cf, torch, launches)
     with profiling.stage("phase 10: compat on the card"):
         compat_on_card(cf, torch, golden, launches)
     with profiling.stage("phase 10: the checkpointed sweep"):

@@ -11,11 +11,9 @@
 //    shared memory a block can hold, so every pass streams the rows
 //    through device memory (and the 50 MB L2): 16 bytes per point per
 //    pass, about 16 * log2(n) bytes per point and transform, and one
-//    launch per pass.  K1, K2 and K5 run on it where neither one block
-//    nor their split's strips fit (K2 and K5: more than 10 mics at 4096,
-//    24 at 2048), K3 where its strips do not, K2, K3 and K5 above 2^20
-//    and K1, K4a, K4b, K6 and K9 above 2^22; they fuse their first or last
-//    pass into a prologue or epilogue.
+//    launch per pass.  K3 runs on it where its strips do not fit (from
+//    2^20), and K1, K2, K4a, K4b, K5's GCC stage, K6 and K9 above 2^22;
+//    they fuse their first or last pass into a prologue or epilogue.
 //
 // 2. On-chip sub-transforms (`block_fft`): one block transforms S
 //    sequences of length L (L * S <= kElems * 1024) held in shared memory,
@@ -31,15 +29,18 @@
 //    product n = n1 * n2 of two such launches (K4a; K4b, K6, K1, and K3's
 //    render and K2's GCC stages, both of them in K5, run it forward and
 //    back in three, the middle one holding the rows for both directions;
-//    K9 runs the back half in two, and K1 above 2^20 K4a's two and K9's
-//    two; up to 1024 x 1024 with strips of kStrip sequences, and for K1,
-//    K4a, K4b, K6 and K9 up to 2048 x 2048 with strips of 8 where 16 would
-//    pass kElems * 1024 points); the length-n2
+//    K9 runs the back half in two, and K1's, K2's and K5's GCC, where
+//    their row pass's strips of every mic row do not fit, K4a's two and
+//    K9's two, through the mic rows' spectra; up to 1024 x 1024 with
+//    strips of kStrip sequences, and for K1, K2's GCC, K4a, K4b, K6 and K9
+//    up to 2048 x 2048 with strips of 8 where 16 would pass kElems * 1024
+//    points); the length-n2
 //    rows of a (n2, 128) plane are one (K10b, and K10a with its radix-16
 //    stages on the tensor cores), and so are the 128-point lane DFTs of 32
 //    of its rows (K10c).
 //    Up to 4096 points one block holds a whole row (K4a, K4b, K6, K1,
-//    K9, K3's render and, where a scene's rows fit, K2's GCC).
+//    K9, K3's render and K2's GCC: a scene where its rows fit, else a
+//    packed cross row through the mic rows' spectra).
 //    Bound: device memory, one read and one write per launch.
 #pragma once
 

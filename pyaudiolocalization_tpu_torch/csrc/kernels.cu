@@ -35,9 +35,17 @@ using palt::log2_int;
 namespace {
 
 constexpr int kRowThreads = 1024;
-// Above this length (``cuda_fft.STAGE_SPLIT_MAX``) K1's split runs
-// through the mic rows' spectra (`gcc_all_spectra`).
-constexpr int kStageSplitMax = 1 << 20;
+// The GCC routes of K1, K2 and K5 (``cuda_fft.gcc_route`` picks one for
+// (nfft, mics), the same for the three): the radix-2 passes (above 2^22),
+// one block a scene, the split with `gcc_rows`, the split through the mic
+// rows' spectra, and one block a packed cross row through the spectra.
+enum GccRoute {
+  kRoutePasses = 0,
+  kRouteBlock = 1,
+  kRouteRows = 2,
+  kRouteSpectra = 3,
+  kRouteSpectraBlock = 4
+};
 
 // Spectrum bin k of the real row packed as the real part (odd = 0) or the
 // imaginary part (odd = 1) of a complex row Z, from zk = Z[k] and zm =
@@ -221,8 +229,10 @@ cudaError_t with_strip(int s2, Launch launch) {
 }
 
 // The same for the strips of the split's column passes (K4a's, K4b's,
-// K6's, K1's and K9's) and of K4b's, K6's, K1's and K9's row passes: 16
-// (kStrip) up to n1 (n2) = 1,024, 8 at 2,048 (``cuda_fft.split_strips``).
+// K6's, K9's and the GCCs' spectra route's) and of K4b's, K6's and
+// `corr_rows`' row passes (K9's, and K1's, K2's and K5's on the spectra
+// route): 16 (kStrip) up to n1 (n2) = 1,024, 8 at 2,048
+// (``cuda_fft.split_strips``).
 template <typename Launch>
 cudaError_t with_split_strip(int strip, Launch launch) {
   if (strip == palt::kStrip)
@@ -245,7 +255,9 @@ cudaError_t with_split_strip(int strip, Launch launch) {
 // block holds S/2 consecutive rows k1 < n1/2 with their partners
 // n1 - k1 (block 0 holds row n1/2, its own partner, in the slot of row
 // 0's) and writes bins 0..n/2 of both real rows straight to the output.
-// For n <= 4096 one block holds the packed row (`fft_real_block`).
+// For n <= 4096 one block holds the packed row (`fft_real_block`, which
+// takes a loader: K4a's rows, and the mic rows of the GCCs' spectra
+// route in one block, K5's finished signals among them).
 //
 // Up to 2^20 (n1, n2 <= 1,024) the column strips hold 16 columns; at
 // 2^21 and 2^22 (n1 = 2,048) a strip of 16 would be 32,768 points (295
@@ -263,24 +275,23 @@ __device__ __forceinline__ int pair_row(int b, int r, int n1, int pairs) {
   return own == 0 ? n1 / 2 : n1 - own;
 }
 
+template <class Load>
 __global__ void __launch_bounds__(1024)
-fft_real_block(const float* __restrict__ x, int rows, int len, int n,
-               const float2* __restrict__ tw, float2* __restrict__ out) {
+fft_real_block(Load load, int rows, int n, const float2* __restrict__ tw,
+               float2* __restrict__ out) {
   using palt::kElems;
   float2* stw = palt::fft_shared();
   float2* buf = stw + (n >> 1);
   const int c = blockIdx.x;
   const bool two = 2 * c + 1 < rows;
-  const float* xa = x + (size_t)(2 * c) * len;
-  const float* xb = xa + len;
+  const auto src = load.row(c);
   palt::stage_twiddles(stw, tw, n, 1);
   // Every load of the thread in flight before the first store.
   float2 v[kElems];
 #pragma unroll
   for (int u = 0; u < kElems; ++u) {
     const int t = threadIdx.x + u * blockDim.x;
-    const bool live = t < len && t < n;
-    v[u] = make_float2(live ? xa[t] : 0.0f, live && two ? xb[t] : 0.0f);
+    v[u] = t < n ? src(t) : make_float2(0.0f, 0.0f);
   }
 #pragma unroll
   for (int u = 0; u < kElems; ++u) {
@@ -545,6 +556,20 @@ int fft_real_rows_launch(const float2* y, int rows, int n1, int n2, int s2,
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
+// K4a in one block (n <= 4096) over `rows` rows given by load -> out
+// (rows, n/2 + 1), a block a packed row.
+template <class Load>
+cudaError_t fft_real_block_launch(Load load, int rows, int n,
+                                  const float2* tw, float2* out,
+                                  cudaStream_t s) {
+  const int smem = (n / 2 + n) * (int)sizeof(float2);
+  const cudaError_t err = palt::allow_smem<fft_real_block<Load>>();
+  if (err != cudaSuccess) return err;
+  fft_real_block<Load><<<(rows + 1) / 2, palt::fft_threads(n, 1), smem, s>>>(
+      load, rows, n, tw, out);
+  return cudaGetLastError();
+}
+
 // ---- K1 / K2: PHAT cross-spectra, two pairs per packed row ---------------
 
 // Packed row blockIdx.y = scene * couples + c holds pairs 2c and 2c+1 of
@@ -786,7 +811,7 @@ boot_block(const float2* __restrict__ s1, Load load, int rows, int n,
 // conflict-free columns): block b's slot r holds row pair_row(b, r), half
 // of them the partners n1 - k1 of the other half, so that every bin's
 // mirror n - k lies in the same block.  Up to S * n2 threads.  S = kStrip
-// (16) but in K4b's, K6's, K1's and K9's row pass at n2 = 2,048, which
+// (16) but in K4b's, K6's and `corr_rows`' row pass at n2 = 2,048, which
 // holds 8.
 
 // Mirror pair t of a row pass's block b (t < pair_tasks(b, n2)), the maps
@@ -1357,10 +1382,13 @@ __global__ void render_finalize(float2* z, int n, int mics, int out_len,
 // K3's render and K2's windowed GCC (K5 runs both) on K4b's four-step
 // split n = n1 * n2, for 8,192 <= n <= 2^20 where their strips fit one
 // block (`cuda_fft.scene_stages` chooses, from n and the mic count, for
-// K3, K2 and K5 alike); up to 4,096 points one block holds a packed base
-// row (`render_block`) or a scene (`window_block`, where its rows fit);
-// elsewhere `render_stage` and `window_stage` run the radix-2 passes.
-// Three launches a stage on the split:
+// K3, K2 and K5 alike; the GCC's is the rows route of
+// ``cuda_fft.gcc_route``); up to 4,096 points one block holds a packed
+// base row (`render_block`) or a scene (`window_block`, where its rows
+// fit).  Elsewhere the render runs the radix-2 passes (`render_stage`),
+// and the GCC goes through the mic rows' spectra (`window_route`) up to
+// 2^22 and runs the passes (`window_stage`) above.  Three launches a
+// stage on the split:
 //
 // render:  K4a's pass 1 over the base rows (two scenes a packed row);
 //          `render_rows`: the base strip's forward row DFTs, then for
@@ -1561,7 +1589,7 @@ __device__ __forceinline__ void arg_unkey(unsigned long long key, float& v,
   j = (int)~(unsigned int)key;
 }
 
-// GCC pass 3.  Grid (n2 / kStrip column strips, scenes * couples): the
+// GCC pass 3.  Grid (n2 / S column strips, scenes * couples): the
 // inverse column DFTs, times 1/n, of packed cross row scene * couples + c
 // (pairs 2c and 2c+1 as its real and imaginary parts); the window's
 // samples (j < w or j >= n - w, the lags of `last_pass_window`); each
@@ -1569,13 +1597,15 @@ __device__ __forceinline__ void arg_unkey(unsigned long long key, float& v,
 // blocks) and its (max, smallest index) into keys by 64-bit atomicMax.
 // The row's last block (counted in count) sums the partials in block
 // order and writes the statistics: no float atomics, so the result does
-// not depend on the order in which the blocks run.
+// not depend on the order in which the blocks run.  S = kStrip (16)
+// columns a strip, 8 at n1 = 2,048 (the spectra route's,
+// ``cuda_fft.split_strips``).
+template <int S>
 __global__ void __launch_bounds__(1024)
 window_cols(const float2* __restrict__ zc, int num_pairs, int couples,
             int n1, int n2, int w, const float2* __restrict__ tw,
             float* __restrict__ win, float* __restrict__ stats, float* part,
             unsigned long long* keys, unsigned int* count) {
-  using palt::kStrip;
   __shared__ float sv[32];
   __shared__ int si[32];
   __shared__ bool last;
@@ -1586,10 +1616,10 @@ window_cols(const float2* __restrict__ zc, int num_pairs, int couples,
   const int scene = row_c / couples;
   const int p0 = 2 * (row_c - scene * couples);
   const bool two = p0 + 1 < num_pairs;
-  const int c0 = blockIdx.x * kStrip;
+  const int c0 = blockIdx.x * S;
   const int nb = gridDim.x;
   palt::stage_twiddles(stw, tw, n1, n2);
-  cols_inverse(zc + (size_t)row_c * n, buf, stw, n1, n2, c0);
+  cols_inverse<S>(zc + (size_t)row_c * n, buf, stw, n1, n2, c0);
   const float scale = 1.0f / (float)n;
   const size_t q0 = (size_t)scene * num_pairs + p0;
   float* w0 = win + q0 * (size_t)(2 * w);
@@ -1597,8 +1627,8 @@ window_cols(const float2* __restrict__ zc, int num_pairs, int couples,
   float sum0 = 0.0f, sum1 = 0.0f;
   float max0 = -INFINITY, max1 = -INFINITY;
   int idx0 = INT_MAX, idx1 = INT_MAX;
-  for (int idx = threadIdx.x; idx < n1 * kStrip; idx += blockDim.x) {
-    const int j = (idx / kStrip) * n2 + c0 + idx % kStrip;
+  for (int idx = threadIdx.x; idx < n1 * S; idx += blockDim.x) {
+    const int j = (idx / S) * n2 + c0 + idx % S;
     const float2 v = buf[idx];
     const float a = v.x * scale;
     const float d = v.y * scale;
@@ -1735,11 +1765,30 @@ cudaError_t gcc_rows_launch(int scenes, int mics, const int* pairs_i,
   return cudaGetLastError();
 }
 
-// The windowed-GCC stage on the split (n1 > 1): the mic rows given by
-// load (rows scene * mics + mic) -> win / stats, through zm (ceil(scenes
-// * mics / 2), n; may be the loader's buffer) and zc (scenes * couples,
-// n); keys (scenes * couples * 2), count (scenes * couples) and part
-// (scenes * couples * 2 * n2 / kStrip) hold the statistics' partials.
+// GCC pass 3 (`window_cols`, strips of S columns) over the packed cross
+// rows zc (scenes * couples, n) -> win / stats; keys and count zeroed by
+// the row pass, part (scenes * couples * 2 * n2 / S) the partials.
+template <int S>
+cudaError_t window_cols_launch(const float2* zc, int scenes, int num_pairs,
+                               int n1, int n2, int wq, const float2* tw,
+                               float* win, float* stats, float* part,
+                               unsigned long long* keys, unsigned int* count,
+                               cudaStream_t s) {
+  const int couples = (num_pairs + 1) / 2;
+  const cudaError_t err = palt::allow_smem<window_cols<S>>();
+  if (err != cudaSuccess) return err;
+  window_cols<S><<<dim3(n2 / S, scenes * couples), palt::fft_threads(n1, S),
+                   (n1 / 2 + n1 * S) * (int)sizeof(float2), s>>>(
+      zc, num_pairs, couples, n1, n2, wq * 128, tw, win, stats, part, keys,
+      count);
+  return cudaGetLastError();
+}
+
+// The windowed-GCC stage on the split with `gcc_rows` (n1 > 1): the mic
+// rows given by load (rows scene * mics + mic) -> win / stats, through zm
+// (ceil(scenes * mics / 2), n; may be the loader's buffer) and zc (scenes
+// * couples, n); keys (scenes * couples * 2), count (scenes * couples) and
+// part (scenes * couples * 2 * n2 / kStrip) hold the statistics' partials.
 template <class Load>
 cudaError_t gcc_split(Load load, int scenes, int mics, const int* pairs_i,
                       const int* pairs_j, int num_pairs, const float* band,
@@ -1747,48 +1796,52 @@ cudaError_t gcc_split(Load load, int scenes, int mics, const int* pairs_i,
                       float2* zm, float2* zc, unsigned long long* keys,
                       unsigned int* count, float* part, float* win,
                       float* stats, cudaStream_t s) {
-  using palt::fft_threads;
   using palt::kStrip;
   const int n2 = n / n1;
-  const int couples = (num_pairs + 1) / 2;
   cudaError_t err =
       cols_launch(load, (scenes * mics + 1) / 2, n1, n2, tw, zm, s);
   if (err != cudaSuccess) return err;
   err = gcc_rows_launch(scenes, mics, pairs_i, pairs_j, num_pairs, band, eps,
                         n1, n2, tw, zm, zc, keys, count, s);
   if (err != cudaSuccess) return err;
-  err = palt::allow_smem<window_cols>();
-  if (err != cudaSuccess) return err;
-  window_cols<<<dim3(n2 / kStrip, scenes * couples), fft_threads(n1, kStrip),
-                (n1 / 2 + n1 * kStrip) * (int)sizeof(float2), s>>>(
-      zc, num_pairs, couples, n1, n2, wq * 128, tw, win, stats, part, keys,
-      count);
-  return cudaGetLastError();
+  return window_cols_launch<kStrip>(zc, scenes, num_pairs, n1, n2, wq, tw,
+                                    win, stats, part, keys, count, s);
 }
 
-// ---- K1 and K9: whole correlations on the split and in one block --------
+// ---- K1, K2, K5 and K9: whole correlations, and the GCC routes ---------
 //
 // K1 (all pairs of every scene; replaces `bfly_gcc_all_pairs`,
 // ops/pallas_fft.py:922 of the TPU package) and K9 (row pairs of two
 // natural-order spectra; replaces `bfly_whitened_corr`, :707) write the
-// whole circular correlation, two pairs a packed Hermitian row.  The TPU
-// kernels kept a row's butterfly planes in VMEM; a 65,536-point row (512
-// KB) does not fit a block's 227 KB, so where `cuda_fft.gcc_schedule` /
-// `corr_schedule` say so they run K4b's four-step split:
+// whole circular correlation, two pairs a packed Hermitian row; K2's
+// GCC stage (K5's too) keeps the lag window and the statistics of it.
+// The TPU kernels kept a row's butterfly planes in VMEM; a 65,536-point
+// row (512 KB) does not fit a block's 227 KB.  K1, K2 and K5 take one
+// route a shape (`GccRoute`, ``cuda_fft.gcc_route`` from nfft and the mic
+// count), so that K5 and K3 then K2 compute the same bits:
 //
-// K1 up to 2^20:  K4a's pass 1 over the mic rows; `gcc_rows` (K2's,
-//      without the statistics' keys); `corr_cols`.
-// K1 above 2^20 (to 2^22, n1 = 2,048):  K4a's two passes over the mic
-//      rows into their natural-order spectra (scenes * mics, n/2 + 1);
-//      `corr_rows` with `PairIndexLoad`, which reads rows scene * mics +
-//      pairs_i[p] and scene * mics + pairs_j[p] of them; `corr_cols`.
-//      `gcc_rows` holds a strip of every packed mic row a scene spans and
-//      one more, (mics + 1) / 2 + 1 strips, which fit 2,048 x 1,024 only
-//      up to 4 mics in strips of 8 rows and 2,048 x 2,048 not at all; this
-//      route holds one strip at any mic count, at the price of the
+// block (n <= 4,096 where a scene's packed mic rows and a spare row fit
+//      one block): `gcc_block` / `window_block`, one launch.
+// rows (8,192 to 2^19 where the row pass's strips fit, up to 10 mics at
+//      65,536): K4a's pass 1 over the mic rows; `gcc_rows`, which holds a
+//      strip of every packed mic row a scene spans and one more, (mics +
+//      1) / 2 + 1 strips; `corr_cols` (K1) or `window_cols` (K2, K5).
+// spectra (8,192 to 2^22 where `gcc_rows` does not fit, so at 2^20 to
+//      2^22 at any mic count):  K4a's two passes over the mic rows into
+//      their natural-order spectra (scenes * mics, n/2 + 1); `corr_rows`
+//      with `PairIndexLoad`, which reads rows scene * mics + pairs_i[p]
+//      and scene * mics + pairs_j[p] of them into the packed cross rows
+//      (K2's argmax keys and block counters zeroed there); `corr_cols` or
+//      `window_cols`.  One strip at any mic count, at the price of the
 //      spectra's write and one read of two spectra a pair.
-// K9:  `corr_rows` with `RowPairLoad` (rows 2c and 2c + 1 of a and b);
-//      `corr_cols`.
+// spectra block (n <= 4,096 beyond the one-block mic limit):  K4a's
+//      `fft_real_block` into the spectra; `corr_block` with
+//      `PairIndexLoad`, a block a packed cross row, and K1's (`CorrOut`)
+//      or K2's (`WindowOut`) epilogue.
+// passes (above 2^22):  the radix-2 passes through device memory.
+//
+// K9:  `corr_rows` with `RowPairLoad` (rows 2c and 2c + 1 of a and b),
+//      `corr_cols`; `corr_block` with `RowPairLoad` up to 4,096.
 //
 // `corr_rows` gathers each strip's bins of the two spectra of a pair (bin
 // q <= n/2; the mirror comes from the Hermitian pair), whitens, runs the
@@ -1796,13 +1849,11 @@ cudaError_t gcc_split(Load load, int scenes, int mics, const int* pairs_i,
 // mirrored: the inverse column DFTs, times 1/n, written in natural order,
 // the real part to pair 2c and the imaginary part to pair 2c + 1.  The
 // strips are K4a's (``cuda_fft.split_strips``): 16 columns and 16 rows up
-// to 1,024 x 1,024, 8 columns at n1 = 2,048 and 8 rows at n2 = 2,048.  Up
-// to 4,096 points one block holds the whole row (`gcc_block`: a scene's
-// packed mic rows and a spare row; `corr_block`: one packed row), one
-// launch.  Bound: device memory (the rows' read and the correlations'
+// to 1,024 x 1,024, 8 columns at n1 = 2,048 and 8 rows at n2 = 2,048.
+// Bound: device memory (the rows' read and the correlations' or windows'
 // write, plus on the split one write and one read of each packed buffer a
-// pass, and K1's spectra above 2^20) and, in the row passes, their
-// instructions, as K2's; a single scene's or pair's call by its launches'
+// pass, and the spectra on the spectra routes) and, in the row passes,
+// their instructions; a single scene's or pair's call by its launches'
 // latency.
 
 // K1 / K9 pass 3.  Grid (n2 / S column strips, scenes * couples): the
@@ -1850,12 +1901,16 @@ cudaError_t corr_cols_launch(const float2* zc, int scenes, int num_pairs,
 // rows (bins 0..n/2 each, ``bins`` = n/2 + 1 apart) whose whitened
 // cross-spectra a0 * conj(b0) and a1 * conj(b1) packed cross row c holds;
 // with no second pair, a1 and b1 repeat the first and `two` is false.
+// scene and p0 say where the pairs' results go: pairs p0 and p0 + 1 of
+// that scene.
 struct CorrPair {
   const float2* a0;
   const float2* b0;
   const float2* a1;
   const float2* b1;
   bool two;
+  int scene;
+  int p0;
 };
 
 // K9: rows 2c and 2c + 1 of a and b (rows, n/2 + 1).
@@ -1867,13 +1922,13 @@ struct RowPairLoad {
     const bool two = 2 * c + 1 < rows;
     const size_t r0 = (size_t)(2 * c) * bins;
     const size_t r1 = two ? r0 + bins : r0;
-    return {a + r0, b + r0, a + r1, b + r1, two};
+    return {a + r0, b + r0, a + r1, b + r1, two, 0, 2 * c};
   }
 };
 
-// K1 above 2^20: packed cross row rc = scene * couples + c holds pairs 2c
-// and 2c + 1 of the scene, whose mics are rows scene * mics + i of the
-// spectra spec (scenes * mics, n/2 + 1).
+// K1's, K2's and K5's spectra routes: packed cross row rc = scene *
+// couples + c holds pairs 2c and 2c + 1 of the scene, whose mics are rows
+// scene * mics + i of the spectra spec (scenes * mics, n/2 + 1).
 struct PairIndexLoad {
   const float2* spec;
   const int* pairs_i;
@@ -1889,20 +1944,25 @@ struct PairIndexLoad {
     const size_t m0 = (size_t)scene * mics;
     return {spec + (m0 + pairs_i[p0]) * bins, spec + (m0 + pairs_j[p0]) * bins,
             spec + (m0 + pairs_i[p1]) * bins, spec + (m0 + pairs_j[p1]) * bins,
-            two};
+            two, scene, p0};
   }
 };
 
-// K1's and K9's pass 2.  Grid (n1 / S, packed cross rows): block (b, c)
-// forms rows pair_row(b, r) of packed cross row c, whiten(a * conj(b)) *
-// band of the loader's two pairs, from bins q <= n/2 of the natural-order
-// spectra (one task a mirror pair, `pair_task`, so that reads run over
-// consecutive bins), then the inverse row DFTs and the conjugate twiddle
-// into zc.  S = 16 rows a strip, 8 at n2 = 2,048 (172 KB).
+// K1's, K2's, K5's and K9's pass 2.  Grid (n1 / S, packed cross rows):
+// block (b, c) forms rows pair_row(b, r) of packed cross row c, whiten(a
+// * conj(b)) * band of the loader's two pairs, from bins q <= n/2 of the
+// natural-order spectra (one task a mirror pair, `pair_task`, so that
+// reads run over consecutive bins), then the inverse row DFTs and the
+// conjugate twiddle into zc.  S = 16 rows a strip, 8 at n2 = 2,048 (172
+// KB).  Where keys is not null (K2's and K5's spectra route), block (0,
+// c) clears row c's two argmax keys and its block counter for
+// `window_cols`.
 template <int kMaxThreads, int kMinBlocks, int S, class Load>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 corr_rows(Load load, const float* __restrict__ band, float eps, int n1,
-          int n2, const float2* __restrict__ tw, float2* __restrict__ zc) {
+          int n2, const float2* __restrict__ tw, float2* __restrict__ zc,
+          unsigned long long* __restrict__ keys,
+          unsigned int* __restrict__ count) {
   float2* stw = palt::fft_shared();
   float2* lo = stw + (n2 >> 1);
   float2* hi = lo + n1;
@@ -1911,6 +1971,10 @@ corr_rows(Load load, const float* __restrict__ band, float eps, int n1,
   const int n = n1 * n2;
   const int c = blockIdx.y;
   const int blk = blockIdx.x;
+  if (keys != nullptr && blk == 0 && threadIdx.x < 2) {
+    keys[2 * (size_t)c + threadIdx.x] = 0ull;
+    if (threadIdx.x == 0) count[c] = 0u;
+  }
   const CorrPair src = load.pair(c, (size_t)(n >> 1) + 1);
   palt::stage_twiddles(stw, tw, n2, n1);
   stage_split_tables(lo, hi, tw, n1, n2);
@@ -1933,10 +1997,13 @@ corr_rows(Load load, const float* __restrict__ band, float eps, int n1,
 
 // Pass 2 over `rows_c` packed cross rows of load into zc, strips of rs
 // rows (16 or 8); at n2 <= 256 (16 rows) two blocks an SM, as K4b's.
+// keys and count: K2's (null for K1 and K9).
 template <class Load>
 cudaError_t corr_rows_launch(Load load, int rows_c, const float* band,
                              float eps, int n1, int n2, int rs,
-                             const float2* tw, float2* zc, cudaStream_t s) {
+                             const float2* tw, float2* zc,
+                             unsigned long long* keys, unsigned int* count,
+                             cudaStream_t s) {
   return with_split_strip(rs, [&](auto strip) {
     constexpr int S = decltype(strip)::value;
     const dim3 grid(n1 / S, rows_c);
@@ -1948,21 +2015,21 @@ cudaError_t corr_rows_launch(Load load, int rows_c, const float* band,
         err = palt::allow_smem<corr_rows<256, 2, S, Load>>();
         if (err != cudaSuccess) return err;
         corr_rows<256, 2, S, Load><<<grid, threads, smem, s>>>(
-            load, band, eps, n1, n2, tw, zc);
+            load, band, eps, n1, n2, tw, zc, keys, count);
         return cudaGetLastError();
       }
     }
     err = palt::allow_smem<corr_rows<1024, 1, S, Load>>();
     if (err != cudaSuccess) return err;
-    corr_rows<1024, 1, S, Load><<<grid, threads, smem, s>>>(load, band, eps,
-                                                            n1, n2, tw, zc);
+    corr_rows<1024, 1, S, Load><<<grid, threads, smem, s>>>(
+        load, band, eps, n1, n2, tw, zc, keys, count);
     return cudaGetLastError();
   });
 }
 
-// K1's epilogue of `gcc_body`: both correlations of the packed inverse
-// (pairs p0 and p0 + 1 of the scene) times 1/n into out (scenes,
-// num_pairs, n).
+// K1's and K9's epilogue of `gcc_body` and `corr_block`: both
+// correlations of the packed inverse (pairs p0 and p0 + 1 of the scene)
+// times 1/n into out (scenes, num_pairs, n).
 struct CorrOut {
   float* out;
   __device__ __forceinline__ void operator()(const float2* work, int scene,
@@ -1978,7 +2045,8 @@ struct CorrOut {
   }
 };
 
-// K2's epilogue of `gcc_body` (`window_block`): both correlations times
+// K2's and K5's epilogue of `gcc_body` (`window_block`) and, on the
+// spectra block route, of `corr_block`: both correlations times
 // 1/n, reduced as `last_pass_window` reduces them: the lags [-w, w) into
 // win (scenes, num_pairs, 2w) (window sample s holds natural index n - w +
 // s, then s - w) and stats (scenes, num_pairs, 3): mean |corr|, the
@@ -2124,40 +2192,35 @@ window_block(Load load, int mics, const int* __restrict__ pairs_i,
            WindowOut{win, stats, w});
 }
 
-// K9 in one block (n <= 4096).  Block c: whiten(a * conj(b)) * band of
-// rows 2c and 2c + 1 over bins 0..n/2 as one packed Hermitian row in
-// shared memory, its inverse, both rows times 1/n.
+// One block a packed cross row (n <= 4096): K9's, and the spectra block
+// route's of K1, K2 and K5.  Block c: whiten(a * conj(b)) * band of the
+// loader's two pairs (`RowPairLoad`: rows 2c and 2c + 1 of a and b;
+// `PairIndexLoad`: pairs 2c and 2c + 1 of a scene, from its mics'
+// spectra) over bins 0..n/2 as one packed Hermitian row in shared memory,
+// its inverse, handed to `epi` with the pairs' scene and first pair (K9
+// and K1: `CorrOut`; K2 and K5: `WindowOut`).  Needs blockDim.x >=
+// fft_threads(n, 1), whole warps.
+template <class Load, class Epilogue>
 __global__ void __launch_bounds__(256)
-corr_block(const float2* __restrict__ a, const float2* __restrict__ b,
-           int rows, const float* __restrict__ band, float eps, int n,
-           const float2* __restrict__ tw, float* __restrict__ out) {
+corr_block(Load load, int num_pairs, const float* __restrict__ band,
+           float eps, int n, const float2* __restrict__ tw, Epilogue epi) {
   float2* stw = palt::fft_shared();
   float2* buf = stw + (n >> 1);
-  const int c = blockIdx.x;
-  const bool two = 2 * c + 1 < rows;
-  const size_t bins = (size_t)(n >> 1) + 1;
-  const float2* a0 = a + (size_t)(2 * c) * bins;
-  const float2* b0 = b + (size_t)(2 * c) * bins;
+  const CorrPair src = load.pair(blockIdx.x, (size_t)(n >> 1) + 1);
   palt::stage_twiddles(stw, tw, n, 1);
   for (int q = threadIdx.x; q <= (n >> 1); q += blockDim.x) {
     const float bq = band[q];
-    float2 r0 = whiten(a0[q], b0[q], eps);
+    float2 r0 = whiten(src.a0[q], src.b0[q], eps);
     r0 = make_float2(r0.x * bq, r0.y * bq);
     float2 r1 = make_float2(0.0f, 0.0f);
-    if (two) {
-      r1 = whiten(a0[bins + q], b0[bins + q], eps);
+    if (src.two) {
+      r1 = whiten(src.a1[q], src.b1[q], eps);
       r1 = make_float2(r1.x * bq, r1.y * bq);
     }
     store_packed(buf, q, n, r0, r1);
   }
   palt::block_fft<1>(buf, 1, 0, n, stw, -1.0f);
-  const float scale = 1.0f / (float)n;
-  float* o0 = out + (size_t)(2 * c) * n;
-  for (int t = threadIdx.x; t < n; t += blockDim.x) {
-    const float2 v = buf[t];
-    o0[t] = v.x * scale;
-    if (two) o0[n + t] = v.y * scale;
-  }
+  epi(buf, src.scene, num_pairs, src.p0, src.two, n);
 }
 
 // Threads of K1's and K9's one-block kernels (every n <= 4096 needs at
@@ -2173,6 +2236,20 @@ constexpr int kBlockThreads = 256;
 inline int block_threads(int n) {
   const int threads = palt::fft_threads(n, 1);
   return threads < 64 ? 64 : threads;
+}
+
+// `corr_block` over `rows_c` packed cross rows of load, `threads` a block.
+template <class Load, class Epilogue>
+cudaError_t corr_block_launch(Load load, int rows_c, int num_pairs,
+                              const float* band, float eps, int n,
+                              int threads, const float2* tw,
+                              const Epilogue& epi, cudaStream_t s) {
+  const cudaError_t err = palt::allow_smem<corr_block<Load, Epilogue>>();
+  if (err != cudaSuccess) return err;
+  corr_block<Load, Epilogue><<<rows_c, threads,
+                               (n / 2 + n) * (int)sizeof(float2), s>>>(
+      load, num_pairs, band, eps, n, tw, epi);
+  return cudaGetLastError();
 }
 
 // K3's render stage in one block (n <= 4096), with the finish of
@@ -2331,34 +2408,92 @@ cudaError_t gcc_all_split(const float* x, int scenes, int mics, int len,
   return corr_cols_launch(zc, scenes, num_pairs, n1, n2, tw, out, s);
 }
 
-// K1 above 2^20 on the split (n1 = 2,048): the mic rows' spectra spec
-// (scenes * mics, n/2 + 1) by K4a's two passes through zm (ceil(scenes *
-// mics / 2), n), then the pairs' packed cross rows zc (scenes * couples,
-// n; may be zm, which is dead by then) and the column pass.  cs: the
-// column passes' strip, s2: K4a's pass-2 strip, rs: the row pass's.
-cudaError_t gcc_all_spectra(const float* x, int scenes, int mics, int len,
-                            const int* pairs_i, const int* pairs_j,
-                            int num_pairs, const float* band, float eps,
-                            int n, int n1, int cs, int s2, int rs,
-                            const float2* tw, float2* zm, float2* spec,
-                            float2* zc, float* out, cudaStream_t s) {
+// The spectra route's first three launches (8,192 <= n <= 2^22): K4a's
+// two passes over the mic rows given by load (rows scene * mics + mic)
+// into their natural-order spectra spec (scenes * mics, n/2 + 1) through
+// zm (ceil(scenes * mics / 2), n; may be the loader's buffer), then
+// `corr_rows` with `PairIndexLoad` into the pairs' packed cross rows zc
+// (scenes * couples, n; may be zm, which is dead by then).  keys and
+// count are K2's (null for K1).  cs: the column passes' strip, s2: K4a's
+// pass-2 strip, rs: the row pass's.
+template <class Load>
+cudaError_t spectra_cross(Load load, int scenes, int mics, const int* pairs_i,
+                          const int* pairs_j, int num_pairs,
+                          const float* band, float eps, int n, int n1, int cs,
+                          int s2, int rs, const float2* tw, float2* zm,
+                          float2* spec, float2* zc, unsigned long long* keys,
+                          unsigned int* count, cudaStream_t s) {
   const int n2 = n / n1;
   const int rows = scenes * mics;
   cudaError_t err = with_split_strip(cs, [&](auto strip) {
-    return cols_launch<decltype(strip)::value>(RowLoad{x, rows, len},
-                                               (rows + 1) / 2, n1, n2, tw, zm,
-                                               s);
+    return cols_launch<decltype(strip)::value>(load, (rows + 1) / 2, n1, n2,
+                                               tw, zm, s);
   });
   if (err != cudaSuccess) return err;
   err = (cudaError_t)fft_real_rows_launch(zm, rows, n1, n2, s2, tw, spec, s);
   if (err != cudaSuccess) return err;
-  err = corr_rows_launch(PairIndexLoad{spec, pairs_i, pairs_j, num_pairs, mics},
-                         scenes * ((num_pairs + 1) / 2), band, eps, n1, n2, rs,
-                         tw, zc, s);
+  return corr_rows_launch(
+      PairIndexLoad{spec, pairs_i, pairs_j, num_pairs, mics},
+      scenes * ((num_pairs + 1) / 2), band, eps, n1, n2, rs, tw, zc, keys,
+      count, s);
+}
+
+// The spectra block route (n <= 4096): K4a's `fft_real_block` over the
+// mic rows given by load into their spectra spec (scenes * mics, n/2 +
+// 1), then `corr_block` with `PairIndexLoad`, a block a packed cross row
+// of `threads` threads, ending in epi.
+template <class Load, class Epilogue>
+cudaError_t spectra_block(Load load, int scenes, int mics, const int* pairs_i,
+                          const int* pairs_j, int num_pairs,
+                          const float* band, float eps, int n, int threads,
+                          const float2* tw, float2* spec, const Epilogue& epi,
+                          cudaStream_t s) {
+  const cudaError_t err =
+      fft_real_block_launch(load, scenes * mics, n, tw, spec, s);
+  if (err != cudaSuccess) return err;
+  return corr_block_launch(
+      PairIndexLoad{spec, pairs_i, pairs_j, num_pairs, mics},
+      scenes * ((num_pairs + 1) / 2), num_pairs, band, eps, n, threads, tw,
+      epi, s);
+}
+
+// K2's windowed-GCC stage (K5's too) on `route`, every route but the
+// passes, for the mic rows given by load (rows scene * mics + mic) of
+// `scenes` scenes -> win / stats: one block a scene (`window_block`); the
+// split with `gcc_rows` through zm and zc (`gcc_split`); the split
+// through the spectra (`spectra_cross` through zm, spec and zc, then
+// `window_cols` with strips of cs columns); one block a packed cross row
+// through spec (`spectra_block` with `WindowOut`).  keys, count and part
+// hold the split's partials.
+template <class Load>
+cudaError_t window_route(Load load, int route, int scenes, int mics,
+                         const int* pairs_i, const int* pairs_j,
+                         int num_pairs, const float* band, float eps, int wq,
+                         int n, int n1, int cs, int s2, int rs,
+                         const float2* tw, float2* zm, float2* spec,
+                         float2* zc, unsigned long long* keys,
+                         unsigned int* count, float* part, float* win,
+                         float* stats, cudaStream_t s) {
+  if (route == kRouteBlock)
+    return window_block_launch(load, scenes, mics, pairs_i, pairs_j,
+                               num_pairs, band, eps, wq, n, tw, win, stats, s);
+  if (route == kRouteRows)
+    return gcc_split(load, scenes, mics, pairs_i, pairs_j, num_pairs, band,
+                     eps, wq, n, n1, tw, zm, zc, keys, count, part, win,
+                     stats, s);
+  if (route == kRouteSpectraBlock)
+    return spectra_block(load, scenes, mics, pairs_i, pairs_j, num_pairs,
+                         band, eps, n, block_threads(n), tw, spec,
+                         WindowOut{win, stats, wq * 128}, s);
+  if (route != kRouteSpectra) return cudaErrorInvalidValue;
+  const cudaError_t err =
+      spectra_cross(load, scenes, mics, pairs_i, pairs_j, num_pairs, band,
+                    eps, n, n1, cs, s2, rs, tw, zm, spec, zc, keys, count, s);
   if (err != cudaSuccess) return err;
   return with_split_strip(cs, [&](auto strip) {
-    return corr_cols_launch<decltype(strip)::value>(zc, scenes, num_pairs, n1,
-                                                    n2, tw, out, s);
+    return window_cols_launch<decltype(strip)::value>(
+        zc, scenes, num_pairs, n1, n / n1, wq, tw, win, stats, part, keys,
+        count, s);
   });
 }
 
@@ -2371,7 +2506,7 @@ cudaError_t corr_split(const float2* a, const float2* b, int rows,
   const int n2 = n / n1;
   const cudaError_t err =
       corr_rows_launch(RowPairLoad{a, b, rows}, (rows + 1) / 2, band, eps, n1,
-                       n2, rs, tw, zc, s);
+                       n2, rs, tw, zc, nullptr, nullptr, s);
   if (err != cudaSuccess) return err;
   return with_split_strip(cs, [&](auto strip) {
     return corr_cols_launch<decltype(strip)::value>(zc, 1, rows, n1, n2, tw,
@@ -2455,7 +2590,6 @@ extern "C" {
 int palt_fft_real(const float* x, int rows, int len, int n, int n1, int cs,
                   int s2, const float2* tw, float2* buf, float2* out,
                   void* stream) {
-  using palt::fft_threads;
   cudaStream_t s = (cudaStream_t)stream;
   const int packed = (rows + 1) / 2;
   if (n1 == 0) {
@@ -2470,15 +2604,9 @@ int palt_fft_real(const float* x, int rows, int len, int n, int n1, int cs,
     PALT_CHECK();
     return 0;
   }
-  if (n1 == 1) {
-    const int smem = (n / 2 + n) * (int)sizeof(float2);
-    const cudaError_t err = palt::allow_smem<fft_real_block>();
-    if (err != cudaSuccess) return (int)err;
-    fft_real_block<<<packed, fft_threads(n, 1), smem, s>>>(x, rows, len, n,
-                                                           tw, out);
-    PALT_CHECK();
-    return 0;
-  }
+  if (n1 == 1)
+    return (int)fft_real_block_launch(RowLoad{x, rows, len}, rows, n, tw, out,
+                                      s);
   const int n2 = n / n1;
   const cudaError_t err = with_split_strip(cs, [&](auto strip) {
     return cols_launch<decltype(strip)::value>(RowLoad{x, rows, len}, packed,
@@ -2490,45 +2618,57 @@ int palt_fft_real(const float* x, int rows, int len, int n, int n1, int cs,
 
 // K1: x (scenes, mics, len) -> out (scenes, num_pairs, n) PHAT
 // correlations, circular.  Rows scene * mics + mic are packed two to a
-// transform across scenes (an odd mic count still packs), as in K2.
-// n1 = 1: one block a scene (`gcc_block`), no buffer; n1 > 1 up to
-// kStageSplitMax (2^20): the three launches of the split n = n1 * n2
-// through spec0 and z0; n1 > 1 above it: the four launches of
-// `gcc_all_spectra` through spec0 (K4a's packed rows), spec1 (the
-// spectra, scenes * mics rows of n/2 + 1 complex) and z0 (the cross rows;
-// may be spec0), with strips of cs columns, s2 rows in K4a's pass 2 and
-// rs rows in the row pass; n1 = 0: the radix-2 passes through spec0 /
-// spec1 and z0 / z1.
+// transform across scenes (an odd mic count still packs), as in K2.  By
+// route (`GccRoute`): one block a scene (`gcc_block`), no buffer; `gcc_rows`
+// on the split n = n1 * n2, three launches through spec0 and z0; the split
+// through the mic rows' spectra (`spectra_cross`, then `corr_cols`), four
+// launches through spec0 (K4a's packed rows), spec1 (the spectra, scenes *
+// mics rows of n/2 + 1 complex) and z0 (the cross rows; may be spec0),
+// with strips of cs columns, s2 rows in K4a's pass 2 and rs rows in the
+// row pass; one block a packed cross row through the spectra
+// (`spectra_block`), two launches through spec1; the radix-2 passes
+// through spec0 / spec1 and z0 / z1.
 int palt_gcc_all_pairs(const float* x, int scenes, int mics, int len, int n,
-                       int n1, int cs, int s2, int rs, const int* pairs_i,
-                       const int* pairs_j, int num_pairs, const float* band,
-                       float eps, const float2* tw, float2* spec0,
-                       float2* spec1, float2* z0, float2* z1, float* out,
-                       void* stream) {
+                       int n1, int route, int cs, int s2, int rs,
+                       const int* pairs_i, const int* pairs_j, int num_pairs,
+                       const float* band, float eps, const float2* tw,
+                       float2* spec0, float2* spec1, float2* z0, float2* z1,
+                       float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int rows = scenes * mics;
   const int packed = (rows + 1) / 2;
   const int couples = (num_pairs + 1) / 2;
   const int cross = scenes * couples;
-  if (n1 == 1) {
+  const RowLoad load{x, rows, len};
+  if (route == kRouteBlock) {
     const int smem = (n / 2 + ((mics + 1) / 2 + 1) * n) * (int)sizeof(float2);
     const cudaError_t err = palt::allow_smem<gcc_block>();
     if (err != cudaSuccess) return (int)err;
     gcc_block<<<dim3(scenes, row_groups(scenes, kBlockThreads, couples)),
-                kBlockThreads, smem, s>>>(RowLoad{x, rows, len}, mics,
-                                          pairs_i, pairs_j, num_pairs, band,
-                                          eps, n, tw, out);
+                kBlockThreads, smem, s>>>(load, mics, pairs_i, pairs_j,
+                                          num_pairs, band, eps, n, tw, out);
     PALT_CHECK();
     return 0;
   }
-  if (n1 > 1 && n > kStageSplitMax)
-    return (int)gcc_all_spectra(x, scenes, mics, len, pairs_i, pairs_j,
-                                num_pairs, band, eps, n, n1, cs, s2, rs, tw,
-                                spec0, spec1, z0, out, s);
-  if (n1 > 1)
+  if (route == kRouteRows)
     return (int)gcc_all_split(x, scenes, mics, len, pairs_i, pairs_j,
                               num_pairs, band, eps, n, n1, tw, spec0, z0, out,
                               s);
+  if (route == kRouteSpectraBlock)
+    return (int)spectra_block(load, scenes, mics, pairs_i, pairs_j,
+                              num_pairs, band, eps, n, kBlockThreads, tw,
+                              spec1, CorrOut{out}, s);
+  if (route == kRouteSpectra) {
+    const cudaError_t err = spectra_cross(
+        load, scenes, mics, pairs_i, pairs_j, num_pairs, band, eps, n, n1, cs,
+        s2, rs, tw, spec0, spec1, z0, nullptr, nullptr, s);
+    if (err != cudaSuccess) return (int)err;
+    return (int)with_split_strip(cs, [&](auto strip) {
+      return corr_cols_launch<decltype(strip)::value>(z0, scenes, num_pairs,
+                                                      n1, n / n1, tw, out, s);
+    });
+  }
+  if (route != kRoutePasses) return (int)cudaErrorInvalidValue;
   pack_rows<<<dim3(palt::pass_blocks(n), packed), kThreads, 0, s>>>(
       x, rows, len, len, n, spec0);
   PALT_CHECK();
@@ -2546,27 +2686,28 @@ int palt_gcc_all_pairs(const float* x, int scenes, int mics, int len, int n,
 }
 
 // K2: x (scenes, mics, len) -> win (scenes, num_pairs, 2*wq*128) lag-centred
-// correlation windows and stats (scenes, num_pairs, 3).  n1 = 1: one block
-// a scene (`window_block`), no buffer; n1 > 1: the split n = n1 * n2
-// (`gcc_split`) through spec0 and c0, with keys, count and part; n1 = 0:
-// the radix-2 passes through spec0 / spec1 and c0 / c1.
+// correlation windows and stats (scenes, num_pairs, 3).  By route
+// (`window_route`): one block a scene (`window_block`), no buffer;
+// `gcc_rows` on the split n = n1 * n2 (`gcc_split`) through spec0 and c0;
+// the split through the spectra, K1's buffers and strips (spec0 K4a's
+// packed rows, spec1 the spectra, c0 the cross rows; may be spec0); one
+// block a packed cross row through the spectra in spec1; the split routes
+// with keys, count and part; the radix-2 passes through spec0 / spec1 and
+// c0 / c1.
 int palt_gcc_windowed(const float* x, int scenes, int mics, int len, int n,
-                      int n1, const int* pairs_i, const int* pairs_j,
-                      int num_pairs, const float* band, float eps, int wq,
-                      const float2* tw, float2* spec0, float2* spec1,
-                      float2* c0, float2* c1, unsigned long long* keys,
-                      unsigned int* count, float* part, float* win,
-                      float* stats, void* stream) {
+                      int n1, int route, int cs, int s2, int rs,
+                      const int* pairs_i, const int* pairs_j, int num_pairs,
+                      const float* band, float eps, int wq, const float2* tw,
+                      float2* spec0, float2* spec1, float2* c0, float2* c1,
+                      unsigned long long* keys, unsigned int* count,
+                      float* part, float* win, float* stats, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int rows = scenes * mics;
-  if (n1 == 1)
-    return (int)window_block_launch(RowLoad{x, rows, len}, scenes, mics,
-                                    pairs_i, pairs_j, num_pairs, band, eps,
-                                    wq, n, tw, win, stats, s);
-  if (n1 > 1)
-    return (int)gcc_split(RowLoad{x, rows, len}, scenes, mics, pairs_i,
-                          pairs_j, num_pairs, band, eps, wq, n, n1, tw, spec0,
-                          c0, keys, count, part, win, stats, s);
+  if (route != kRoutePasses)
+    return (int)window_route(RowLoad{x, rows, len}, route, scenes, mics,
+                             pairs_i, pairs_j, num_pairs, band, eps, wq, n,
+                             n1, cs, s2, rs, tw, spec0, spec1, c0, keys,
+                             count, part, win, stats, s);
   const int packed = (rows + 1) / 2;
   pack_rows<<<dim3(palt::pass_blocks(n), packed), kThreads, 0, s>>>(
       x, rows, len, len, n, spec0);
@@ -2658,14 +2799,9 @@ int palt_whitened_corr(const float2* a, const float2* b, int rows, int n,
                        void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int couples = (rows + 1) / 2;
-  if (n1 == 1) {
-    const cudaError_t err = palt::allow_smem<corr_block>();
-    if (err != cudaSuccess) return (int)err;
-    corr_block<<<couples, kBlockThreads, (n / 2 + n) * (int)sizeof(float2),
-                 s>>>(a, b, rows, band, eps, n, tw, out);
-    PALT_CHECK();
-    return 0;
-  }
+  if (n1 == 1)
+    return (int)corr_block_launch(RowPairLoad{a, b, rows}, couples, rows, band,
+                                  eps, n, kBlockThreads, tw, CorrOut{out}, s);
   if (n1 > 1)
     return (int)corr_split(a, b, rows, band, eps, n, n1, cs, rs, tw, z0, out,
                            s);
@@ -2718,22 +2854,27 @@ int palt_delay_sum(const float* base, int scenes, int len, const float* tau,
 
 // K5: the whole scene.  K3's render with finalize (and noise) for every
 // scene, each finished signal written as the packed forward input of K2's
-// GCC, then K2's GCC stage.  Outputs as K2.  Each stage in one block, on
-// the split or on the passes as K3 (n1r) and K2 (n1g) would run it,
-// through the same buffers: at n <= 4096 `render_block` packs the
-// finished signals into z0 and `window_block` reads them there (two
-// launches); a GCC stage on the split transforms them in place.
+// GCC, then K2's GCC stage.  Outputs as K2.  The render in one block, on
+// the split or on the passes as K3 runs it (n1r), through zb0 / zb1 and
+// z0 / z1; the GCC stage on K2's route (`window_route`, with n1g, cs, s2
+// and rs as K2 takes them) over the finished signals (`PackedLoad`) in
+// z0 or z1, where the render left them: at n <= 4096 `render_block` packs
+// them into z0; a split route transforms them in place, the rows route
+// into the cross rows c0, the spectra route into the spectra spec and
+// then the cross rows c0 (z0: the packed rows are dead by then); the
+// spectra block route into spec; the radix-2 passes through the other of
+// z0 / z1 and c0 / c1.
 int palt_scene_windowed(const float* base, int scenes, int len,
                         const float* tau, const float* gain, int mics,
-                        int paths, int n, int n1r, int n1g, int out_len,
-                        const float* fade, const float* snr_db,
-                        const int* seeds, const int* pairs_i,
-                        const int* pairs_j, int num_pairs, const float* band,
-                        float eps, int wq, const float2* tw, float2* zb0,
-                        float2* zb1, float2* z0, float2* z1, float2* c0,
-                        float2* c1, unsigned long long* keys,
-                        unsigned int* count, float* part, float* win,
-                        float* stats, void* stream) {
+                        int paths, int n, int n1r, int n1g, int route, int cs,
+                        int s2, int rs, int out_len, const float* fade,
+                        const float* snr_db, const int* seeds,
+                        const int* pairs_i, const int* pairs_j, int num_pairs,
+                        const float* band, float eps, int wq, const float2* tw,
+                        float2* zb0, float2* zb1, float2* z0, float2* z1,
+                        float2* c0, float2* c1, float2* spec,
+                        unsigned long long* keys, unsigned int* count,
+                        float* part, float* win, float* stats, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int rows = scenes * mics;
   float2* sig = z0;
@@ -2758,19 +2899,16 @@ int palt_scene_windowed(const float* base, int scenes, int len,
         nullptr, 1);
     PALT_CHECK();
   }
-  if (n1g == 1)
-    return (int)window_block_launch(PackedLoad{sig, rows, n}, scenes, mics,
-                                    pairs_i, pairs_j, num_pairs, band, eps,
-                                    wq, n, tw, win, stats, s);
-  if (n1g > 1)
-    return (int)gcc_split(PackedLoad{sig, rows, n}, scenes, mics, pairs_i,
-                          pairs_j, num_pairs, band, eps, wq, n, n1g, tw, sig,
-                          c0, keys, count, part, win, stats, s);
+  if (route != kRoutePasses)
+    return (int)window_route(PackedLoad{sig, rows, n}, route, scenes, mics,
+                             pairs_i, pairs_j, num_pairs, band, eps, wq, n,
+                             n1g, cs, s2, rs, tw, sig, spec, c0, keys, count,
+                             part, win, stats, s);
   float2* other = sig == z0 ? z1 : z0;
-  float2* spec = fft_rows(sig, other, tw, n, (rows + 1) / 2, 0, log2_int(n),
-                          s);
+  float2* spectra = fft_rows(sig, other, tw, n, (rows + 1) / 2, 0,
+                             log2_int(n), s);
   PALT_CHECK();
-  window_stage(spec, scenes, mics, pairs_i, pairs_j, num_pairs, band, eps,
+  window_stage(spectra, scenes, mics, pairs_i, pairs_j, num_pairs, band, eps,
                wq, n, tw, c0, c1, win, stats, s);
   PALT_CHECK();
   return 0;

@@ -9,18 +9,21 @@ wrapper               replaces                               bound on an H100
 ===================== ====================================== ==================
 fft_real              bfly_fft_real (:685)                   memory: 2 launches*
 whitened_corr         bfly_whitened_corr (:707)              memory: 2 launches*
-gcc_all_pairs         bfly_gcc_all_pairs (:922)              memory: 3 or 4*
-gcc_windowed          bfly_gcc_windowed (:1095)              memory: 1 or 3 launches
+gcc_all_pairs         bfly_gcc_all_pairs (:922)              memory: 1 to 4*
+gcc_windowed          bfly_gcc_windowed (:1095)              memory: 1 to 4*
 bootstrap_peaks       bfly_bootstrap_peaks (:1227)           memory: 3 launches
 noise_bootstrap_peaks bfly_noise_bootstrap_peaks (:1326)     memory: 3 launches
-scene_windowed        bfly_scene_windowed (:1600)            memory: 2 or 7 launches
+scene_windowed        bfly_scene_windowed (:1600)            memory: 2 to 8*
 delay_sum             bfly_delay_sum (:1851)                 memory: 1 or 4 launches
 whiten                pallas_kernels.phat_whiten_planes (:34) memory: 16 B/bin
 ===================== ====================================== ==================
 
-(*) Above 2^22 points K4a, K9 and K1 run the radix-2 passes (K4a: the
-packing, log2(nfft) passes and the split into the two spectra, 2 +
-log2(nfft) launches).  K1 takes 4 launches from 2^21 to 2^22.
+(*) Above 2^22 points K4a, K9, K1, K2 and K5's GCC stage run the radix-2
+passes (K4a: the packing, log2(nfft) passes and the split into the two
+spectra, 2 + log2(nfft) launches).  K1, K2 and K5's GCC take one route a
+shape (``gcc_route``): 1 launch in one block a scene, 3 with
+``gcc_rows``, 4 through the mic rows' spectra on the split, 2 through
+them in one block.
 
 The three kernels of K10, the TPU package's A/B tool of FFT schedules
 (``tools/mxu_rowdft_bench.py:328``), are wrapped by ``ops/rowdft.py``
@@ -34,34 +37,34 @@ where ``scene_stages`` gives the split, ``delay_sum``, ``gcc_windowed``
 and ``scene_windowed`` run on-chip sub-transforms: a block holds a strip
 of sequences in shared memory for all of its radix-16 stages, and a long
 row is a four-step split of two such launches (``fft_real_split``; the
-bootstrap, the render and the GCCs run it forward and back in three, the
-middle launch holding rows for both directions; K9, whose input is
-spectra, in two; up to 2^22 for K4a, K4b, K6, K9 and K1, whose strips
-narrow to 8 at 2,048, ``split_strips``, K1 going through its mic rows'
-spectra above 2^20, and up to 2^20 for K2, K3 and K5), so a
-transform reads and writes each point once per
-launch (16 bytes a complex point) and is bound by device memory at
-that.  Up to 4,096 points the bootstraps, K9, the render (a packed base
-row a block) and the all-pairs and windowed GCCs (a scene a block, up to
-10 mics at 4,096) hold a whole row in one block, so K3 and K2 are one
-launch there and K5 two.  The others run radix-2 Stockham
-passes over rows in device memory, one launch and 16 bytes a point per
-pass, about 16·log2(nfft) bytes per point and transform, and fuse their
-first or last pass into a prologue or epilogue: every stage where neither
-one block nor its split's strips fit (``scene_stages``, ``gcc_schedule``),
-K2, K3 and K5 above 2^20 and K1, K4a, K4b, K6 and K9 above 2^22.  The
-design keeps the rest of the work out of device memory where
-the TPU kernels did: real rows are packed two to a complex transform, the
-whitening / ramp synthesis runs in one pass over the spectra, two real
-results share each inverse, and the bootstrap's maxima and the windowed
-GCC's lag window and statistics are taken inside the last inverse pass
-instead of writing the correlation.  The TPU kernels' bit-reversed (N2,
-128) plane layout is not carried over: spectra are in natural order.  The
-all-pairs GCC, render, windowed-GCC and scene kernels take a leading scene
-axis; a launch covers every scene, and a batch beyond the grids' 65,535
-rows launches over scene chunks (``scene_chunk``, one rule for the four
-kernels).  K4a, K4b, K6 and K9 take a batch of rows beyond their grids in
-chunks of ``ROW_CHUNK`` rows.
+bootstrap, the render and the GCCs' ``gcc_rows`` route run it forward
+and back in three, the middle launch holding rows for both directions;
+K9, whose input is spectra, in two; the GCCs' spectra route K4a's two,
+then K9's two with a pair-indexed loader; up to 2^22 for K4a, K4b, K6,
+K9 and the GCCs of K1, K2 and K5, whose strips narrow to 8 at 2,048,
+``split_strips``, and up to 2^19 for K3's render), so a transform reads
+and writes each point once per launch (16 bytes a complex point) and is
+bound by device memory at that.  Up to 4,096 points the bootstraps, K9,
+the render (a packed base row a block) and the all-pairs and windowed
+GCCs (a scene a block up to 10 mics at 4,096, else a packed cross row a
+block through the mic rows' spectra) hold a whole row in one block, so
+K3 is one launch there, K2 one or two and K5 two or three.  The others
+run radix-2 Stockham passes over rows in device memory, one launch and
+16 bytes a point per pass, about 16·log2(nfft) bytes per point and
+transform, and fuse their first or last pass into a prologue or
+epilogue: K3's render from 2^20 and everything above 2^22.  The design
+keeps the rest of the work out of device memory where the TPU kernels
+did: real rows are packed two to a complex transform, the whitening /
+ramp synthesis runs in one pass over the spectra, two real results share
+each inverse, and the bootstrap's maxima and the windowed GCC's lag
+window and statistics are taken inside the last inverse pass instead of
+writing the correlation.  The TPU kernels' bit-reversed (N2, 128) plane
+layout is not carried over: spectra are in natural order.  The
+all-pairs GCC, render, windowed-GCC and scene kernels take a leading
+scene axis; a launch covers every scene, and a batch beyond the grids'
+65,535 rows launches over scene chunks (``scene_chunk``, one rule for the
+four kernels).  K4a, K4b, K6 and K9 take a batch of rows beyond their
+grids in chunks of ``ROW_CHUNK`` rows.
 Measurement noise and the noise-null bootstrap's rows come from a
 counter-based Philox generator (``csrc/philox.cuh``, twin
 ``ops/noise.py``) in place of the TPU core's random bits.
@@ -84,7 +87,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional, Sequence
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -95,10 +98,11 @@ from . import signal as sig_ops
 PHAT_EPS = 1e-10
 # K4a: one block holds the packed row up to this length; the four-step
 # split of two on-chip transforms reaches 2048 x 2048 for K4a, K4b, K6, K9
-# and K1 (FFT_REAL_MAX), with strips of 8 at 2,048 (``split_strips``), and
-# 1024 x 1024 for K2, K3 and K5 (STAGE_SPLIT_MAX), whose row passes hold
-# more than one strip; above STAGE_SPLIT_MAX K1's split goes through its
-# mic rows' spectra (``gcc_all_pairs``).
+# and the GCCs of K1, K2 and K5 (FFT_REAL_MAX), with strips of 8 at 2,048
+# (``split_strips``), and 1024 x 1024 for the row passes that hold more
+# than one strip (STAGE_SPLIT_MAX): K3's render and the GCCs' ``gcc_rows``
+# route; elsewhere the GCCs go through their mic rows' spectra
+# (``gcc_route``).
 FFT_REAL_ONE_BLOCK = 4096
 FFT_REAL_MAX = 1 << 22
 STAGE_SPLIT_MAX = 1 << 20
@@ -194,17 +198,17 @@ def _library() -> ctypes.CDLL:
             "palt_whiten": [p, ctypes.c_longlong, f, p, p],
             "palt_whitened_corr": [p, p, i, i, i, i, i, p, f, p, p, p, p,
                                    p],
-            "palt_gcc_all_pairs": [p, i, i, i, i, i, i, i, i, p, p, i, p, f,
-                                   p, p, p, p, p, p, p],
+            "palt_gcc_all_pairs": [p, i, i, i, i, i, i, i, i, i, p, p, i, p,
+                                   f, p, p, p, p, p, p, p],
             "palt_bootstrap_peaks": [p, p, i, i, i, i, i, i, f, p, p, p,
                                      p],
-            "palt_gcc_windowed": [p, i, i, i, i, i, p, p, i, p, f, i, p, p,
-                                  p, p, p, p, p, p, p, p, p],
+            "palt_gcc_windowed": [p, i, i, i, i, i, i, i, i, i, p, p, i, p,
+                                  f, i, p, p, p, p, p, p, p, p, p, p, p],
             "palt_delay_sum": [p, i, i, p, p, i, i, i, i, i, p, i, p, p, p,
                                p, p, p, p, p, p],
-            "palt_scene_windowed": [p, i, i, p, p, i, i, i, i, i, i, p, p, p,
-                                    p, p, i, p, f, i, p, p, p, p, p, p, p, p,
-                                    p, p, p, p, p],
+            "palt_scene_windowed": [p, i, i, p, p, i, i, i, i, i, i, i, i, i,
+                                    i, p, p, p, p, p, i, p, f, i, p, p, p, p,
+                                    p, p, p, p, p, p, p, p, p, p],
             "palt_row_dft": [p, p, i, i, i, i, i, f, p, p, p, p, p, i, i,
                              p],
             "palt_row_stages": [p, p, i, i, i, i, i, f, p, p, p, p, p, i,
@@ -412,46 +416,87 @@ def _gcc_block_smem(nfft: int, mics: int) -> int:
     return 8 * (nfft // 2 + ((mics + 1) // 2 + 1) * nfft)
 
 
+class GccRoute(NamedTuple):
+    """The route of K1's, K2's and K5's GCC at one shape (``gcc_route``):
+    ``kind`` (``ROUTE_*``, the kernels' ``GccRoute``), ``n1`` (0 on the
+    passes, 1 in one block, else the split's n1) and, on the spectra
+    route, the strips of the column passes and the row pass (0 elsewhere)."""
+    kind: int
+    n1: int
+    cols: int
+    rows: int
+
+
+ROUTE_PASSES, ROUTE_BLOCK, ROUTE_ROWS, ROUTE_SPECTRA, ROUTE_SPECTRA_BLOCK = (
+    range(5))
+ROUTE_NAMES = ("passes", "block", "rows", "spectra", "spectra block")
+
+
+def gcc_route(nfft: int, mics: int) -> GccRoute:
+    """The GCC route of K1, K2 and K5's GCC stage for ``mics`` mics a
+    scene at nfft, one rule for the three (so that K5 and K3 then K2
+    compute the same bits):
+
+    - up to ``FFT_REAL_ONE_BLOCK`` (4,096), one block a scene
+      (``gcc_block``, ``window_block``) where a scene's packed mic rows
+      and a spare row fit (``_gcc_block_smem``: up to 10 mics at 4,096, 24
+      at 2,048), else one block a packed cross row through the mic rows'
+      spectra (K4a's ``fft_real_block``, then ``corr_block``);
+    - up to ``STAGE_SPLIT_MAX`` (2^20), the four-step split nfft = n1 *
+      n2 of ``fft_real_split`` with ``gcc_rows`` where its strips, one for
+      each packed mic row a scene's mics can span ((mics + 1) // 2) and
+      one for the output, fit one block's shared memory (``SMEM_OPTIN``);
+      never at 2^20, where two strips of 16 x 1,025 points pass it;
+    - elsewhere up to ``FFT_REAL_MAX`` (2^22), the split through the mic
+      rows' spectra at any mic count (K4a's two passes, ``corr_rows`` with
+      the pair-indexed loader, ``corr_cols`` or ``window_cols``), with
+      K4a's strips (``split_strips``: 16 and 16 up to 2^20, 8 columns from
+      n1 = 2,048 and 8 rows at n2 = 2,048);
+    - the radix-2 passes above."""
+    if nfft <= FFT_REAL_ONE_BLOCK:
+        if _gcc_block_smem(nfft, mics) <= SMEM_OPTIN:
+            return GccRoute(ROUTE_BLOCK, 1, 0, 0)
+        return GccRoute(ROUTE_SPECTRA_BLOCK, 1, 0, 0)
+    if nfft > FFT_REAL_MAX:
+        return GccRoute(ROUTE_PASSES, 0, 0, 0)
+    n1, n2 = fft_real_split(nfft)
+    if (nfft <= STAGE_SPLIT_MAX
+            and _row_pass_smem(n1, n2, (mics + 1) // 2 + 1) <= SMEM_OPTIN):
+        return GccRoute(ROUTE_ROWS, n1, 0, 0)
+    return GccRoute(ROUTE_SPECTRA, n1, *split_strips(n1, n2))
+
+
 def scene_stages(nfft: int, mics: int):
     """(n1 of the render stage, n1 of the GCC stage) for ``mics`` mics a
     scene at nfft: the schedule of K3's render and of K2's windowed GCC
     (K5 runs each stage as K3 and K2 run it, so that the fused and the
-    split paths compute the same bits) and, for the GCC, of K1 too up to
-    ``STAGE_SPLIT_MAX`` (``gcc_schedule``).  Up to ``FFT_REAL_ONE_BLOCK``
-    (4,096): 1, one block, for the render always (``render_block``: the
-    twiddles, a packed base row and one work row, 80 KB at 4,096) and for
-    the GCC where a scene's packed mic rows fit (``_gcc_block_smem``: up to
-    10 mics at 4,096, 24 at 2,048).  Up to 2^20: the four-step split nfft
-    = n1 * n2 of ``fft_real_split`` where the row pass's strips fit one
-    block's shared memory (``SMEM_OPTIN``); the render's row pass holds
-    two strips (the base rows and one output row at a time), the GCC's one
-    strip for each packed mic row a scene's mics can span ((mics + 1) //
-    2) and one for the output.  Else 0, the radix-2 passes, and so above
-    ``STAGE_SPLIT_MAX`` (2^20): their column passes keep strips of 16
-    columns, which stop at n1 = 1,024."""
+    split paths compute the same bits).  The render: 1, one block, up to
+    ``FFT_REAL_ONE_BLOCK`` (4,096: ``render_block``, the twiddles, a
+    packed base row and one work row, 80 KB at 4,096); up to
+    ``STAGE_SPLIT_MAX`` (2^20) the four-step split nfft = n1 * n2 of
+    ``fft_real_split`` where its row pass's two strips (the base rows and
+    one output row at a time) fit one block's shared memory
+    (``SMEM_OPTIN``: to 2^19); else 0, the radix-2 passes.  The GCC: the
+    n1 of ``gcc_route``, whose kind tells one block a scene from one a
+    cross row (both 1) and ``gcc_rows`` from the spectra (both the
+    split's n1); 0, the passes, only above 2^22."""
+    gcc = gcc_route(nfft, mics).n1
     if nfft <= FFT_REAL_ONE_BLOCK:
-        return 1, (1 if _gcc_block_smem(nfft, mics) <= SMEM_OPTIN else 0)
+        return 1, gcc
     if nfft > STAGE_SPLIT_MAX:
-        return 0, 0
+        return 0, gcc
     n1, n2 = fft_real_split(nfft)
-    render = n1 if _row_pass_smem(n1, n2, 2) <= SMEM_OPTIN else 0
-    gcc = (n1 if _row_pass_smem(n1, n2, (mics + 1) // 2 + 1) <= SMEM_OPTIN
-           else 0)
-    return render, gcc
+    return (n1 if _row_pass_smem(n1, n2, 2) <= SMEM_OPTIN else 0), gcc
 
 
 def gcc_schedule(nfft: int, mics: int) -> int:
-    """n1 of K1's schedule for ``mics`` mics a scene at nfft.  Up to
-    ``STAGE_SPLIT_MAX`` (2^20) the GCC stage's of ``scene_stages``, so K1
-    and K2 take one schedule a shape — 1, one block a scene
-    (``gcc_block``), up to 4,096 where the scene's rows fit; the four-step
-    split where its row pass's strips fit; else 0, the radix-2 passes.
-    Above, up to ``FFT_REAL_MAX`` (2^22), K4a's split (n1 = 2,048) at any
-    mic count: K1 goes through its mic rows' spectra there, and its row
-    pass holds one strip (``gcc_all_pairs``); 0 above."""
-    if STAGE_SPLIT_MAX < nfft <= FFT_REAL_MAX:
-        return _split_n1(nfft)
-    return scene_stages(nfft, mics)[1]
+    """n1 of K1's schedule for ``mics`` mics a scene at nfft, K2's GCC
+    stage's (``gcc_route``, one rule for K1, K2 and K5): 1 up to 4,096
+    (one block a scene, or a packed cross row through the spectra beyond
+    the one-block mic limit), the split's n1 from 8,192 to ``FFT_REAL_MAX``
+    (2^22; ``gcc_rows`` where its strips fit, else through the mic rows'
+    spectra), 0, the radix-2 passes, above."""
+    return gcc_route(nfft, mics).n1
 
 
 def corr_schedule(nfft: int) -> int:
@@ -471,18 +516,48 @@ def _copies(n1: int) -> int:
     return 0 if n1 == 1 else (1 if n1 else 2)
 
 
-def _window_scratch(rows: int, nfft: int, n1: int, device):
+def _window_scratch(rows: int, nfft: int, route: GccRoute, device):
     """``window_cols``' partials for ``rows`` packed cross rows on the
-    split (n1 > 1): the (max, index) keys (rows * 2, int64), the block
-    counters (rows, int32) and the per-block sums of |corr| (rows * 2 *
-    n2 / ROW_STRIP, float32); Nones in one block and on the passes."""
-    if n1 <= 1:
+    split routes (``gcc_rows``, the spectra): the (max, index) keys (rows
+    * 2, int64), the block counters (rows, int32) and the per-block sums
+    of |corr| (rows * 2 * n2 / strip, float32; the column strip, 16 on
+    ``gcc_rows``, the route's on the spectra); Nones in one block and on
+    the passes."""
+    if route.kind not in (ROUTE_ROWS, ROUTE_SPECTRA):
         return None, None, None
-    blocks = nfft // n1 // ROW_STRIP
+    blocks = nfft // route.n1 // (route.cols or ROW_STRIP)
     return (torch.empty(2 * rows, dtype=torch.int64, device=device),
             torch.empty(rows, dtype=torch.int32, device=device),
             torch.empty(2 * rows * blocks, dtype=torch.float32,
                         device=device))
+
+
+def _gcc_buffers(route: GccRoute, scenes: int, mics: int, couples: int,
+                 nfft: int, device):
+    """K1's and K2's buffers on ``route`` for ``scenes`` scenes a launch:
+    the strips argument (column strip, K4a's pass-2 strip, row strip; all
+    0 off the spectra route), pointers (spec0, spec1, cross0, cross1) and
+    the tensors.  One block a scene: none.  ``gcc_rows``: the packed mic
+    rows and the cross rows.  The passes: two copies of each (ping-pong).
+    The spectra: K4a's packed rows, which the cross rows reuse once the
+    spectra are written, and the spectra (scenes * mics, nfft/2 + 1) in
+    spec1; the spectra block route the spectra alone."""
+    packed = (scenes * mics + 1) // 2
+    cross = scenes * couples
+    if route.kind in (ROUTE_SPECTRA, ROUTE_SPECTRA_BLOCK):
+        spec = torch.empty((scenes * mics, nfft // 2 + 1),
+                           dtype=torch.complex64, device=device)
+        if route.kind == ROUTE_SPECTRA_BLOCK:
+            return (0, 0, 0), (None, spec.data_ptr(), None, None), [spec]
+        buf = _scratch(max(packed, cross), nfft, device)
+        s2 = fft_real_rows_strip(nfft // route.n1, packed)
+        return ((route.cols, s2, route.rows),
+                (buf.data_ptr(), spec.data_ptr(), buf.data_ptr(), None),
+                [buf, spec])
+    copies = _copies(route.n1)
+    spec0, spec1, bufs = _buffers(copies, packed, nfft, device)
+    cpl0, cpl1, cross_bufs = _buffers(copies, cross, nfft, device)
+    return (0, 0, 0), (spec0, spec1, cpl0, cpl1), bufs + cross_bufs
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -658,34 +733,40 @@ def gcc_all_pairs(signals: torch.Tensor, pairs_i: Sequence[int],
     scene (rows scene * M + mic, two per complex FFT, so an odd M packs
     across scenes), the whitened, band-masked cross-spectra of two pairs
     of one scene per packed Hermitian row, the packed inverse, 1/n and the
-    split into the two pairs.  By shape (``gcc_schedule``):
+    split into the two pairs.  By route (``gcc_route``, K2's):
 
-    - nfft <= ``FFT_REAL_ONE_BLOCK`` (4,096) and up to 10 mics: one
-      launch, a block per scene holding the scene's packed mic rows and a
-      spare row in shared memory, no scratch (blocks share a scene's
-      couples where scenes are too few to fill the card);
-    - where K2's GCC stage takes the split (``scene_stages``: up to 2^19
-      at 4 mics, 10 mics at 65,536): three launches on K4b's four-step
-      split over one buffer of packed mic rows and one of packed cross
-      rows — K4a's column pass, K2's row pass (a scene's strips of every
-      packed mic row; per couple the cross-spectra and the inverse row
-      DFTs), and a column pass whose inverse column DFTs write the
-      correlations in natural order;
-    - above ``STAGE_SPLIT_MAX`` (2^20) up to ``FFT_REAL_MAX`` (2^22), at
-      any mic count: four launches on the split 2,048 x n2 — K4a's two
-      passes write the mic rows' natural-order spectra (scenes * M, nfft/2
-      + 1), K9's row pass reads rows scene * M + pairs_i[p] and scene * M +
-      pairs_j[p] of them (the pair-indexed loader) into the packed cross
-      rows, and the column pass as above; the strips are K4a's
-      (``split_strips``, ``fft_real_rows_strip``: 8 columns, 16 rows at
-      2^21 and 8 at 2^22), and the cross rows reuse K4a's packed buffer;
-    - elsewhere the radix-2 passes through device memory.
+    - one block a scene (nfft <= ``FFT_REAL_ONE_BLOCK``, 4,096, up to 10
+      mics): one launch, the scene's packed mic rows and a spare row in
+      shared memory, no scratch (blocks share a scene's couples where
+      scenes are too few to fill the card);
+    - ``gcc_rows`` (up to 2^19 where its strips fit: 4 mics at 2^19, 10
+      mics at 65,536): three launches on K4b's four-step split over one
+      buffer of packed mic rows and one of packed cross rows — K4a's
+      column pass, K2's row pass (a scene's strips of every packed mic
+      row; per couple the cross-spectra and the inverse row DFTs), and a
+      column pass whose inverse column DFTs write the correlations in
+      natural order;
+    - the spectra (8,192 to ``FFT_REAL_MAX``, 2^22, where ``gcc_rows``
+      does not fit, at any mic count; every mic count from 2^20 on): four
+      launches — K4a's two passes write the mic rows' natural-order
+      spectra (scenes * M, nfft/2 + 1), K9's row pass reads rows scene * M
+      + pairs_i[p] and scene * M + pairs_j[p] of them (the pair-indexed
+      loader) into the packed cross rows, and the column pass as above;
+      the strips are K4a's (``split_strips``, ``fft_real_rows_strip``: 16
+      columns and rows up to 2^20; 8 columns, 16 rows at 2^21 and 8 at
+      2^22), and the cross rows reuse K4a's packed buffer;
+    - the spectra block (nfft <= 4,096 beyond 10 mics; 24 at 2,048): two
+      launches, K4a's one-block transform of every mic row into the
+      spectra, then K9's one-block kernel a packed cross row with the
+      pair-indexed loader;
+    - above 2^22 the radix-2 passes through device memory.
 
     A batch whose grids would exceed 65,535 rows launches over scene
-    chunks (``scene_chunk``; one block a scene has no such limit).  Bound
-    by device memory: the signals' read, the correlations' write and, on
-    the split, one write and one read of each packed buffer a pass (above
-    2^20 also the spectra's write and two spectra read a pair)."""
+    chunks (``scene_chunk``; the one-block routes have no such limit).
+    Bound by device memory: the signals' read, the correlations' write
+    and, on the split, one write and one read of each packed buffer a
+    pass (on the spectra routes also the spectra's write and two spectra
+    read a pair)."""
     if _use_plain(signals, mask):
         return gcc_all_pairs_plain(signals, pairs_i, pairs_j, nfft, mask, eps)
     _check_contiguous("gcc_all_pairs", signals, mask)
@@ -699,8 +780,9 @@ def gcc_all_pairs(signals: torch.Tensor, pairs_i: Sequence[int],
     scenes = int(np.prod(lead)) if lead else 1
     num_pairs = int(pi.shape[0])
     couples = (num_pairs + 1) // 2
-    n1 = gcc_schedule(nfft, mics)
-    chunk = scenes if n1 == 1 else scene_chunk(scenes, mics, num_pairs)
+    route = gcc_route(nfft, mics)
+    chunk = (scenes if route.n1 == 1
+             else scene_chunk(scenes, mics, num_pairs))
     if length > nfft or mask.shape != (nfft // 2 + 1,):
         raise ValueError("gcc_all_pairs: unsupported shapes")
     dev = signals.device
@@ -716,28 +798,14 @@ def gcc_all_pairs(signals: torch.Tensor, pairs_i: Sequence[int],
     pj_t = torch.as_tensor(pj, dtype=torch.int32, device=dev)
     x = signals.view(scenes, mics, length)
     o = out.view(scenes, num_pairs, nfft)
-    packed = (chunk * mics + 1) // 2
-    strips = (0, 0, 0)
-    if n1 > 1 and nfft > STAGE_SPLIT_MAX:
-        # K4a's packed rows and, once the spectra are written, the cross
-        # rows share one buffer.
-        cols, rows_strip = _split_strips(n1, nfft)
-        strips = (cols, fft_real_rows_strip(nfft // n1, packed), rows_strip)
-        _buf = _scratch(max(packed, chunk * couples), nfft, dev)
-        _spec = torch.empty((chunk * mics, nfft // 2 + 1),
-                            dtype=torch.complex64, device=dev)
-        spec0, spec1 = _buf.data_ptr(), _spec.data_ptr()
-        cpl0, cpl1 = spec0, None
-    else:
-        spec0, spec1, _spec = _buffers(_copies(n1), packed, nfft, dev)
-        cpl0, cpl1, _cpl = _buffers(_copies(n1), chunk * couples, nfft, dev)
+    strips, ptrs, _bufs = _gcc_buffers(route, chunk, mics, couples, nfft, dev)
     tw = _twiddles(nfft, str(dev))
     for s0 in range(0, scenes, chunk):
         _launch("gcc_all_pairs", dev, lib.palt_gcc_all_pairs,
                 x[s0].data_ptr(), min(chunk, scenes - s0), mics, length,
-                nfft, n1, *strips, pi_t.data_ptr(), pj_t.data_ptr(),
-                num_pairs, mask.data_ptr(), eps, tw.data_ptr(), spec0, spec1,
-                cpl0, cpl1, o[s0].data_ptr())
+                nfft, route.n1, route.kind, *strips, pi_t.data_ptr(),
+                pj_t.data_ptr(), num_pairs, mask.data_ptr(), eps,
+                tw.data_ptr(), *ptrs, o[s0].data_ptr())
     return out
 
 
@@ -788,24 +856,30 @@ def gcc_windowed(signals: torch.Tensor, pairs_i: Sequence[int],
     transform), the whitened, band-masked cross-spectra of two pairs a
     packed row, the packed inverse, and the scale, the window write and
     the statistics in the inverse's last step, so the (..., P, nfft)
-    correlation is never written.  By shape (``scene_stages``, K1's rule):
+    correlation is never written.  By route (``gcc_route``, K1's rule):
     up to 4,096 points where a scene's packed mic rows fit (10 mics at
     4,096, 24 at 2,048), one launch, a block a scene (``window_block``:
     the rows' transforms in shared memory, then couple by couple the
     cross-spectra, the inverse and the window with the statistics by
     block reductions in a fixed order, ties going to the smallest index),
-    no scratch; where it gives a split (8,192 <= nfft <= 2^19; up to 10
-    mics a scene at 65,536), three launches on K4b's four-step schedule:
-    K4a's column pass; a row pass that holds a scene's strips of every
-    packed mic row and, couple by couple, forms the cross-spectra and runs
-    the inverse row DFTs; a column pass whose inverse column DFTs end in
-    the window and the statistics (per-block partials summed in block
-    order by the row's last block, the argmax by a 64-bit atomic maximum
-    that keeps the smallest index on ties).  Elsewhere the radix-2 passes,
-    the last one fused with the window and the statistics.  Bound by
-    device memory.  A batch whose grids would exceed 65,535 rows launches
-    over scene chunks (``scene_chunk``), in one block too, so that K2
-    chunks as K5 does."""
+    no scratch; beyond that mic count two launches through the mic rows'
+    spectra (K4a's one-block transform, then a block a packed cross row
+    with the same window and statistics); where ``gcc_rows`` fits (8,192
+    <= nfft <= 2^19; up to 10 mics a scene at 65,536), three launches on
+    K4b's four-step schedule: K4a's column pass; a row pass that holds a
+    scene's strips of every packed mic row and, couple by couple, forms
+    the cross-spectra and runs the inverse row DFTs; a column pass whose
+    inverse column DFTs end in the window and the statistics (per-block
+    partials summed in block order by the row's last block, the argmax by
+    a 64-bit atomic maximum that keeps the smallest index on ties);
+    elsewhere up to 2^22, four launches through the mic rows' spectra, as
+    K1's: K4a's two passes, the pair-indexed row pass (which also clears
+    the argmax keys and block counters) and that column pass, with K4a's
+    strips (8 columns from 2^21).  Above 2^22 the radix-2 passes, the last
+    one fused with the window and the statistics.  Bound by device
+    memory.  A batch whose grids would exceed 65,535 rows launches over
+    scene chunks (``scene_chunk``), in one block too, so that K2 chunks as
+    K5 does."""
     _check_window("gcc_windowed", nfft, wq)
     if _use_plain(signals, mask):
         return gcc_windowed_plain(signals, pairs_i, pairs_j, nfft, wq, mask,
@@ -831,12 +905,9 @@ def gcc_windowed(signals: torch.Tensor, pairs_i: Sequence[int],
     stats = torch.empty(lead + (num_pairs, 3), dtype=torch.float32,
                         device=dev)
     chunk = scene_chunk(scenes, mics, num_pairs)
-    n1 = scene_stages(nfft, mics)[1]
-    copies = _copies(n1)
-    spec0, spec1, _spec = _buffers(copies, (chunk * mics + 1) // 2, nfft,
-                                   dev)
-    cpl0, cpl1, _cpl = _buffers(copies, chunk * couples, nfft, dev)
-    keys, count, part = _window_scratch(chunk * couples, nfft, n1, dev)
+    route = gcc_route(nfft, mics)
+    strips, ptrs, _bufs = _gcc_buffers(route, chunk, mics, couples, nfft, dev)
+    keys, count, part = _window_scratch(chunk * couples, nfft, route, dev)
     tw = _twiddles(nfft, str(dev))
     x = signals.view(scenes, mics, length)
     win_s = win.view(scenes, num_pairs, width)
@@ -844,9 +915,9 @@ def gcc_windowed(signals: torch.Tensor, pairs_i: Sequence[int],
     for s0 in range(0, scenes, chunk):
         _launch("gcc_windowed", dev, lib.palt_gcc_windowed,
                 x[s0].data_ptr(), min(chunk, scenes - s0), mics, length,
-                nfft, n1, pi_t.data_ptr(), pj_t.data_ptr(), num_pairs,
-                mask.data_ptr(), eps, wq, tw.data_ptr(), spec0, spec1, cpl0,
-                cpl1, _ptr(keys), _ptr(count), _ptr(part),
+                nfft, route.n1, route.kind, *strips, pi_t.data_ptr(),
+                pj_t.data_ptr(), num_pairs, mask.data_ptr(), eps, wq,
+                tw.data_ptr(), *ptrs, _ptr(keys), _ptr(count), _ptr(part),
                 win_s[s0].data_ptr(), stats_s[s0].data_ptr())
     return win, stats
 
@@ -1146,17 +1217,22 @@ def scene_windowed(base: torch.Tensor, tau: torch.Tensor,
     one scene in VMEM; one scene's 4 x 65,536 complex spectra (2 MB)
     exceed a block's 227 KB of shared memory, so here one host entry runs
     K3's render stage and K2's GCC stage for all scenes back to back on
-    one stream, each on the schedule ``scene_stages`` gives K3 and K2 (up
-    to 4,096 points ``render_block`` then ``window_block``, two launches;
-    at 65,536 three launches each on the four-step split, with the
-    finalize between, seven in all), the intermediates in device memory
-    and L2.  The render writes each finished signal as the packed forward
-    input of the GCC stage (zero-padded to nfft), which the GCC's block or
-    column pass reads (on the split in place).  The same stage code as
-    ``delay_sum`` then ``gcc_windowed``, so the two paths agree to the bit
-    on the same inputs; a batch whose grids would exceed 65,535 rows
-    launches over the scene chunks those two take (``scene_chunk``).
-    Bound by device memory."""
+    one stream, the render on the schedule ``scene_stages`` gives K3 and
+    the GCC on K2's route (``gcc_route``): up to 4,096 points
+    ``render_block`` then ``window_block``, two launches (beyond the
+    one-block mic limit ``render_block``, K4a's one-block transform into
+    the mic rows' spectra and a block a packed cross row, three); at
+    65,536 three launches each on the four-step split, with the finalize
+    between, seven in all; where ``gcc_rows`` does not fit (2^20 and up
+    at any mic count) the GCC's four launches through the mic rows'
+    spectra; the intermediates in device memory and L2.  The render
+    writes each finished signal as the packed forward input of the GCC
+    stage (zero-padded to nfft), which the GCC's block or column pass
+    reads (on the split in place).  The same stage code as ``delay_sum``
+    then ``gcc_windowed``, so the two paths agree to the bit on the same
+    inputs; a batch whose grids would exceed 65,535 rows launches over the
+    scene chunks those two take (``scene_chunk``).  Bound by device
+    memory."""
     _check_noise_pair("scene_windowed", snr_db, seeds)
     _check_window("scene_windowed", nfft, wq)
     if _use_plain(base, tau, gains, fade, mask):
@@ -1185,15 +1261,36 @@ def scene_windowed(base: torch.Tensor, tau: torch.Tensor,
     stats = torch.empty(lead + (num_pairs, 3), dtype=torch.float32,
                         device=dev)
     chunk = scene_chunk(scenes, mics, num_pairs)
-    n1r, n1g = scene_stages(nfft, mics)
-    # The base and cross buffers as K3 and K2 take them (none in one
-    # block); the packed mic rows, which hold the finished signals between
-    # the stages, once where neither stage runs the passes.
+    n1r = scene_stages(nfft, mics)[0]
+    route = gcc_route(nfft, mics)
+    packed, cross = (chunk * mics + 1) // 2, chunk * couples
+    # The base buffers as K3 takes them (none in one block); the packed mic
+    # rows, which hold the finished signals between the stages, once where
+    # the render does not run the passes (the GCC runs them only above
+    # 2^22, where the render does too), the first copy large enough for
+    # the cross rows on the spectra route (they go there once the spectra
+    # are written); the cross rows as K2 takes them on the other routes;
+    # the spectra on the spectra routes.
     zb0, zb1, _zb = _buffers(_copies(n1r), (chunk + 1) // 2, nfft, dev)
-    zm0, zm1, _zm = _buffers(1 if n1r and n1g else 2,
-                             (chunk * mics + 1) // 2, nfft, dev)
-    cpl0, cpl1, _cpl = _buffers(_copies(n1g), chunk * couples, nfft, dev)
-    keys, count, part = _window_scratch(chunk * couples, nfft, n1g, dev)
+    two = not n1r
+    spectra = route.kind == ROUTE_SPECTRA
+    _zm = [_scratch(max(packed, cross) if spectra else packed, nfft, dev)]
+    if two:
+        _zm.append(_scratch(packed, nfft, dev))
+    zm0, zm1 = _zm[0].data_ptr(), (_zm[1].data_ptr() if two else None)
+    strips, spec = (0, 0, 0), None
+    if spectra:
+        cpl0, cpl1 = zm0, None
+        strips = (route.cols, fft_real_rows_strip(nfft // route.n1, packed),
+                  route.rows)
+    else:
+        cpl0, cpl1, _cpl = _buffers(
+            0 if route.kind == ROUTE_SPECTRA_BLOCK else _copies(route.n1),
+            cross, nfft, dev)
+    if route.kind in (ROUTE_SPECTRA, ROUTE_SPECTRA_BLOCK):
+        spec = torch.empty((chunk * mics, nfft // 2 + 1),
+                           dtype=torch.complex64, device=dev)
+    keys, count, part = _window_scratch(cross, nfft, route, dev)
     tw = _twiddles(nfft, str(dev))
     base_s, tau_s, gains_s, snr_s, seeds_s, win_s, stats_s = _scene_views(
         lead, base, tau, gains, snr_db, seeds, win, stats)
@@ -1201,11 +1298,12 @@ def scene_windowed(base: torch.Tensor, tau: torch.Tensor,
         _launch("scene_windowed", dev, lib.palt_scene_windowed,
                 base_s[s0].data_ptr(), min(chunk, scenes - s0), length,
                 tau_s[s0].data_ptr(), gains_s[s0].data_ptr(), mics, paths,
-                nfft, n1r, n1g, out_samples, fade.data_ptr(), _at(snr_s, s0),
-                _at(seeds_s, s0), pi_t.data_ptr(), pj_t.data_ptr(),
-                num_pairs, mask.data_ptr(), eps, wq, tw.data_ptr(), zb0,
-                zb1, zm0, zm1, cpl0, cpl1, _ptr(keys), _ptr(count),
-                _ptr(part), win_s[s0].data_ptr(), stats_s[s0].data_ptr())
+                nfft, n1r, route.n1, route.kind, *strips, out_samples,
+                fade.data_ptr(), _at(snr_s, s0), _at(seeds_s, s0),
+                pi_t.data_ptr(), pj_t.data_ptr(), num_pairs, mask.data_ptr(),
+                eps, wq, tw.data_ptr(), zb0, zb1, zm0, zm1, cpl0, cpl1,
+                _ptr(spec), _ptr(keys), _ptr(count), _ptr(part),
+                win_s[s0].data_ptr(), stats_s[s0].data_ptr())
     return win, stats
 
 

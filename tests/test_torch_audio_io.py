@@ -291,6 +291,52 @@ def test_api_from_files_matches_jax(tmp_path, monkeypatch, lag_mode):
         np.testing.assert_allclose(g["snr"], w["snr"], rtol=1e-7)
 
 
+def test_api_at_2_20_from_a_long_recording_matches_jax(tmp_path,
+                                                      monkeypatch):
+    """A 4-mic recording at 44.1 kHz (no resampling) of 12 s, whose GCC
+    under ``DEFAULT_CONFIG`` (``max_expected_delay`` 0.05: the circular
+    next_pow2(n)) transforms at 2^20, where K1's and K2's GCC go through
+    the mic rows' spectra on the card: the full core without the bootstrap
+    (float64, ``analyze_correlation`` off, so no fast path) and then the
+    windowed fast path (float32), the port against the JAX package on the
+    same files: TDOAs within 0.05 samples, positions within 5 mm."""
+    from pyaudiolocalization_tpu_torch.utils.audio_io import write_wav
+    monkeypatch.chdir(tmp_path)
+    fs = 44100
+    cfg = copy.deepcopy(jpkg.DEFAULT_CONFIG)
+    cfg.update(fs=fs, duration=12.0, source_position=[0.2, 0.6, 0.4])
+    cfg["localization"].update(lag_mode="physical", sync_mode="none",
+                               analyze_correlation=False,
+                               visualize_correlation=False)
+    scene = jpkg.SceneConfig.from_dict(cfg)
+    sigs = np.asarray(simulate_signals_fast(
+        scene.source_position, scene.mic_positions, float(fs), 343.0,
+        scene.duration, "noise", scene.freq, scene.plane_coeffs,
+        scene.plane_material_ids, scene.materials.absorption,
+        scene.materials.freq, 1, 0.01, key=jax.random.PRNGKey(20),
+        dtype=jnp.float64))
+    n = sigs.shape[-1]
+    assert tpkg.api._physical_nfft(n, fs, 0.05) == 1 << 20
+    paths = []
+    for k, x in enumerate(sigs):
+        paths.append(str(tmp_path / f"mic{k + 1}.wav"))
+        write_wav(paths[-1], 0.9 * x / np.max(np.abs(x)), fs)
+    for jdt, tdt in ((jnp.float64, torch.float64),
+                     (jnp.float32, torch.float32)):
+        want = jpkg.localize_sound_source(cfg, audio_files=paths,
+                                          use_simulation=False, dtype=jdt)
+        got = tpkg.localize_sound_source(cfg, audio_files=paths,
+                                         use_simulation=False, device="cpu",
+                                         dtype=tdt)
+        assert np.any(np.abs(want["tdoas"]) > 0)
+        np.testing.assert_allclose(np.asarray(got["tdoas"]) * fs,
+                                   np.asarray(want["tdoas"]) * fs, rtol=0,
+                                   atol=0.05)
+        np.testing.assert_allclose(got["estimated_position"],
+                                   want["estimated_position"], rtol=0,
+                                   atol=5e-3)
+
+
 def test_api_audio_file_errors(tmp_path):
     cfg = _config("physical")
     with pytest.raises(ValueError, match="Audio files must be provided"):

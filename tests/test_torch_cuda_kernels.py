@@ -592,11 +592,11 @@ def test_gcc_all_pairs_launches_over_scene_chunks(cuda, monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,m,length,nfft,schedule", [
     (5, 3, 1500, 2048, 1), (512, 4, 4000, 4096, 1), (1, 8, 4000, 4096, 1),
-    (3, 10, 3000, 4096, 1), (2, 12, 3000, 4096, 0), (None, 4, 44100, 65536,
+    (3, 10, 3000, 4096, 1), (2, 12, 3000, 4096, 1), (None, 4, 44100, 65536,
                                                       256),
     (None, 4, 44100, 131072, 512), (3, 3, 6000, 8192, 128),
-    (2, 8, 44100, 65536, 256), (1, 11, 44100, 65536, 0),
-    (1, 3, 600000, 1 << 20, 0), (None, 4, 1046019, 1 << 21, 2048),
+    (2, 8, 44100, 65536, 256), (1, 11, 44100, 65536, 256),
+    (1, 3, 600000, 1 << 20, 1024), (None, 4, 1046019, 1 << 21, 2048),
     (2, 3, 600000, 1 << 21, 2048), (None, 4, 2000000, 1 << 22, 2048)])
 def test_gcc_all_pairs_schedules_match_plain(cuda, b, m, length, nfft,
                                              schedule):
@@ -605,10 +605,10 @@ def test_gcc_all_pairs_schedules_match_plain(cuda, b, m, length, nfft,
     spread over blocks, the odd edge of 5 scenes x 3 mics, 10 mics), the
     three launches of the split (the api's one scene, whose row pass
     spreads its couples over ``gridDim.z``, no_gate's 131,072, an odd mic
-    count at 8,192, 8 mics), the four through the mic rows' spectra above
-    2^20 (a 23.7 s recording's 4 mics at 2^21, 2 scenes of 3 mics, 4 mics
-    at 2^22) and the radix-2 passes (12 mics at 4,096, 11 at 65,536,
-    2^20)."""
+    count at 8,192, 8 mics), the four through the mic rows' spectra on the
+    split (11 mics at 65,536, past ``gcc_rows``; 3 mics at 2^20; a 23.7 s
+    recording's 4 mics at 2^21, 2 scenes of 3 mics, 4 mics at 2^22) and
+    the two through them in one block (12 mics at 4,096)."""
     assert cf.gcc_schedule(nfft, m) == schedule
     g = _gen(cuda, 5)
     sig = torch.randn((m, length) if b is None else (b, m, length),
@@ -675,6 +675,109 @@ def test_gcc_and_corr_device_kernels_per_call(cuda, tmp_path):
                                 tmp_path / f"k9_{nfft}.json")
         assert len(names) == len(want), names
         assert all(w in n for w, n in zip(want, names)), names
+
+
+# K1 and K2 through the mic rows' spectra (``cuda_fft.gcc_route``):
+# (scenes, mics, samples, nfft): on the split the api's 4 mics at 2^20
+# (a 18 s recording at 44.1 kHz), 8 mics and 2 scenes of 6 at 2^18 (past
+# ``gcc_rows``' 4), 11 mics at 65,536, and 4 mics at the fast path's 2^21
+# and 2^22 recording lengths; in one block 16 scenes of 16 mics and 4 of
+# 12 at 4,096.
+SPECTRA_SHAPES = [(1, 4, 800000, 1 << 20), (1, 8, 200000, 1 << 18),
+                  (2, 6, 200000, 1 << 18), (1, 11, 44100, 65536),
+                  (1, 4, 1500000, 1 << 21), (1, 4, 3000000, 1 << 22),
+                  (16, 16, 4000, 4096), (4, 12, 3000, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m,length,nfft", SPECTRA_SHAPES)
+def test_gcc_spectra_routes_match_plain(cuda, b, m, length, nfft):
+    """K1 and K2 on the spectra routes, one launch each, against their
+    twins: K1's correlations within 1e-6, K2's windows and statistics
+    within 1e-6 with the argmax equal, with and without the band."""
+    route = cf.gcc_route(nfft, m)
+    assert route.kind == (cf.ROUTE_SPECTRA_BLOCK if nfft <= 4096
+                          else cf.ROUTE_SPECTRA)
+    g = _gen(cuda, 20)
+    sig = torch.randn((b, m, length), generator=g, device=cuda)
+    pi, pj = _pairs(m)
+    wq = min(21, nfft // 256)
+    for band in ((300.0, 3400.0), None):
+        mask = cf.band_mask(nfft, band, 44100.0, device=cuda)
+        cf.reset_launches()
+        got = cf.gcc_all_pairs(sig, pi, pj, nfft, mask)
+        win, stats = cf.gcc_windowed(sig, pi, pj, nfft, wq, mask)
+        assert cf.LAUNCHES["gcc_all_pairs"] == cf.LAUNCHES["gcc_windowed"] == 1
+        want = cf.gcc_all_pairs_plain(sig, pi, pj, nfft, mask)
+        assert float((got - want).abs().max()) < 1e-6
+        del got, want
+        w2, s2 = cf.gcc_windowed_plain(sig, pi, pj, nfft, wq, mask)
+        torch.cuda.synchronize()
+        assert float((win - w2).abs().max()) < 1e-6
+        assert torch.equal(stats[..., 2], s2[..., 2])
+        assert float((stats[..., :2] - s2[..., :2]).abs().max()) < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenes,m,paths,total,out,nfft,wq", [
+    (3, 12, 2, 3500, 3000, 4096, 2), (1, 6, 1, 250000, 200000, 1 << 18, 8),
+    (1, 4, 1, 900000, 800000, 1 << 20, 21)])
+def test_scene_windowed_on_the_spectra_routes_is_k3_then_k2(
+        cuda, scenes, m, paths, total, out, nfft, wq):
+    """K5 where its GCC stage goes through the mic rows' spectra (12 mics
+    at 4,096 in one block, 6 mics at 2^18 and 4 at 2^20 on the split,
+    with the render on the split at 2^18 and on the passes at 2^20):
+    against its twin within 2e-5, and equal to K3 then K2 to the bit."""
+    assert cf.gcc_route(nfft, m).kind in (cf.ROUTE_SPECTRA,
+                                          cf.ROUTE_SPECTRA_BLOCK)
+    base, tau, gains, snr, seeds, fade = _scene_inputs(cuda, scenes, m,
+                                                       paths, total, out)
+    pi, pj = _pairs(m)
+    mask = cf.band_mask(nfft, (300.0, 3400.0), 16000.0, device=cuda)
+    win, stats = cf.scene_windowed(base, tau, gains, pi, pj, nfft, out, wq,
+                                   fade, mask, snr, seeds)
+    sigs = cf.delay_sum(base, tau, gains, nfft, out, fade, True, snr, seeds)
+    w3, s3 = cf.gcc_windowed(sigs, pi, pj, nfft, wq, mask)
+    w2, s2 = cf.scene_windowed_plain(base, tau, gains, pi, pj, nfft, out,
+                                     wq, fade, mask, snr, seeds)
+    torch.cuda.synchronize()
+    assert torch.equal(win, w3) and torch.equal(stats, s3)
+    assert float((win - w2).abs().max()) < 2e-5
+
+
+@pytest.mark.cuda
+def test_gcc_spectra_routes_device_kernels_per_call(cuda, tmp_path):
+    """Through the mic rows' spectra K1 runs four device kernels on the
+    split at 2^20 (K4a's two passes, ``corr_rows``, ``corr_cols``) and two
+    in one block at 4,096 with 12 mics (``fft_real_block``, ``corr_block``
+    with ``CorrOut``); K2 four at 2^21 (``window_cols`` last) and two at
+    4,096 (``corr_block`` with ``WindowOut``); no radix-2 pass anywhere."""
+    g = _gen(cuda, 21)
+    for shape, nfft, wq in (((1, 4, 800000), 1 << 20, 21),
+                            ((1, 4, 1500000), 1 << 21, 21),
+                            ((4, 12, 3000), 4096, 2)):
+        sig = torch.randn(shape, generator=g, device=cuda)
+        pi, pj = _pairs(shape[1])
+        mask = cf.band_mask(nfft, (300.0, 3400.0), 44100.0, device=cuda)
+        k1 = _device_kernels(lambda: cf.gcc_all_pairs(sig, pi, pj, nfft,
+                                                      mask),
+                             tmp_path / f"k1_{nfft}.json")
+        k2 = _device_kernels(lambda: cf.gcc_windowed(sig, pi, pj, nfft, wq,
+                                                     mask),
+                             tmp_path / f"k2_{nfft}.json")
+        if nfft > 4096:
+            want = ("fft_real_cols", "fft_real_rows", "corr_rows")
+            assert len(k1) == len(k2) == 4, (k1, k2)
+            assert all(w in a and w in b for w, a, b in zip(want, k1, k2))
+            assert "corr_cols" in k1[3] and "window_cols" in k2[3], (k1, k2)
+        else:
+            assert len(k1) == len(k2) == 2, (k1, k2)
+            assert "fft_real_block" in k1[0] and "fft_real_block" in k2[0]
+            assert "CorrOut" in k1[1] and "WindowOut" in k2[1], (k1, k2)
+        for name in k1 + k2:
+            assert not any(p in name for p in (
+                "stockham_pass", "pack_rows", "gcc_cross",
+                "last_pass_window", "split_pairs")), name
 
 
 def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
@@ -853,9 +956,10 @@ def test_scene_windowed_kernel_matches_plain_and_split(cuda, scenes, m,
 def test_scene_windowed_split_shapes(cuda, scenes, m, paths, total, out,
                                      nfft, wq):
     """K5 on the split at odd mic counts (packed rows across scenes) and
-    the api's single scene, and with 11 mics, whose GCC stage takes the
-    passes while the render stays on the split: against the twin and,
-    bit for bit where it matters, against K3 then K2."""
+    the api's single scene, and with 11 mics, whose GCC stage goes
+    through the mic rows' spectra while the render stays on the split:
+    against the twin and, bit for bit where it matters, against K3 then
+    K2."""
     base, tau, gains, snr, seeds, fade = _scene_inputs(cuda, scenes, m,
                                                        paths, total, out)
     pi, pj = _pairs(m)
@@ -919,8 +1023,9 @@ def test_scene_kernels_across_scene_chunks(cuda, monkeypatch, m, paths,
 # One block up to 4,096 points: (scenes, mics, paths, padded length,
 # samples, nfft, wq): one scene at 512 with 3 mics, 7 scenes of 5, the
 # short sweep's 512 x 4 at 2,048, the trio's 8 mics at 4,096, 9 mics (the
-# GCC block's widest span but one), and the GCC on the passes where a
-# scene's rows do not fit (11 mics at 4,096, 25 at 2,048).
+# GCC block's widest span but one), and the GCC through the mic rows'
+# spectra, a block a packed cross row, where a scene's rows do not fit (11
+# mics at 4,096, 25 at 2,048).
 ONE_BLOCK = [(1, 3, 2, 500, 450, 512, 2), (7, 5, 3, 1000, 900, 1024, 4),
              (512, 4, 1, 1694, 1600, 2048, 3), (64, 8, 1, 4094, 4000, 4096, 6),
              (3, 9, 2, 3500, 3000, 4096, 2), (2, 11, 1, 3500, 3000, 4096, 2),
@@ -935,10 +1040,13 @@ def test_scene_kernels_in_one_block_match_plain(cuda, scenes, m, paths,
     turn) at nfft <= 4,096, odd mic counts, one scene and many: each one
     launch of its wrapper, against its twin within the A/B tool's
     ``SCENE_TOL`` (2e-5, 1e-6, 1e-5) with equal argmaxes, and K5 equal to
-    K3 then K2 to the bit (the GCC on the passes where it does not fit)."""
+    K3 then K2 to the bit (the GCC through the spectra where a scene does
+    not fit)."""
     n1r, n1g = cf.scene_stages(nfft, m)
-    assert n1r == 1 and n1g == (1 if m <= (24 if nfft == 2048 else 10)
-                                else 0)
+    assert n1r == 1 and n1g == 1
+    assert cf.gcc_route(nfft, m).kind == (
+        cf.ROUTE_BLOCK if m <= (24 if nfft == 2048 else 10)
+        else cf.ROUTE_SPECTRA_BLOCK)
     base, tau, gains, snr, seeds, fade = _scene_inputs(cuda, scenes, m,
                                                        paths, total, out)
     pi, pj = _pairs(m)
@@ -990,8 +1098,10 @@ def test_one_block_device_kernels_per_call(cuda, tmp_path, monkeypatch):
     """At 4,096 points K3 runs one device kernel (``render_block``), K2 one
     (``window_block`` over its rows) and K5 two (``render_block``, then
     ``window_block`` over the packed finished signals); with 11 mics K5's
-    GCC stage runs the radix-2 passes after the same ``render_block``; a
-    chunked call runs its kernels once a chunk."""
+    GCC stage goes through the mic rows' spectra after the same
+    ``render_block`` (K4a's ``fft_real_block`` over the packed finished
+    signals, then ``corr_block``, a block a packed cross row); a chunked
+    call runs its kernels once a chunk."""
     base, tau, gains, snr, sd, fade = _scene_inputs(cuda, 64, 4, 1, 4094,
                                                     4000)
     pi, pj = _pairs(4)
@@ -1018,8 +1128,10 @@ def test_one_block_device_kernels_per_call(cuda, tmp_path, monkeypatch):
     names = _device_kernels(
         lambda: cf.scene_windowed(base, tau, gains, qi, qj, 4096, 4000, 2,
                                   fade, mask, snr, sd), tmp_path / "k5p.json")
-    assert "render_block" in names[0] and "last_pass_window" in names[-1]
-    assert len(names) == 1 + 12 + 1 + 11 + 1, names
+    assert len(names) == 3, names
+    assert "render_block" in names[0] and "fft_real_block" in names[1]
+    assert "PackedLoad" in names[1] and "corr_block" in names[2], names
+    assert "WindowOut" in names[2], names
     monkeypatch.setattr(cf, "_MAX_GRID_Y", 7)
     base, tau, gains, snr, sd, fade = _scene_inputs(cuda, 5, 4, 1, 1800,
                                                     1500)

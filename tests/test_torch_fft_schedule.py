@@ -36,12 +36,15 @@ indices so that a wrong map shows before the card sees it:
   natural-order bins by the mirror-pair tasks (to 2^22: 16 rows a strip,
   8 at n2 = 2,048, and 8 columns at n1 = 2,048), K1 above 2^20 (K4a's
   passes into the mic rows' spectra, K9's row pass with the pair-indexed
-  loader, ``corr_cols``), held also against the JAX package at 2^21, the
+  loader, ``corr_cols``), held also against the JAX package at 2^21, K2's
+  GCC on that route (``window_cols`` over the route's column strips) and
+  through the spectra in one block (``fft_real_block``, then
+  ``corr_block`` a packed cross row with ``CorrOut`` or ``WindowOut``), the
   one-block versions
   (``gcc_block`` with a scene's rows packed across scenes and couples
   shared over groups, ``corr_block``) against ``gcc_all_pairs_plain`` and
   ``whitened_corr_plain``, and the rules that pick each schedule
-  (``gcc_schedule``, ``corr_schedule``);
+  (``gcc_route``, ``gcc_schedule``, ``corr_schedule``);
 - K3, K2 and K5 in one block up to 4,096 points: ``render_block`` (a
   packed base row's two scenes, their packed mic rows mixed, inverted
   and finished one at a time, the noise by its Philox key map) against
@@ -779,17 +782,18 @@ def arg_unkey(key):
     return u.astype(np.uint32).view(np.float32), j.astype(np.int64)
 
 
-def window_stats_model(cols, n1, n2, w, order):
+def window_stats_model(cols, n1, n2, w, order, strip=S):
     """``window_cols`` on one packed cross row's inverse columns cols (n2
-    / S, n1, S) times 1/n, its blocks taken in ``order``: each block's
-    sum of |corr| (the partials, summed in block order by the last block)
-    and its (max, smallest index) as a 64-bit atomic maximum; the window
-    j < w or j >= n - w.  -> (win (2, 2w), stats (2, 3)) for the real and
-    imaginary parts."""
+    / strip, n1, strip) times 1/n, its blocks taken in ``order``: each
+    block's sum of |corr| (the partials, summed in block order by the last
+    block) and its (max, smallest index) as a 64-bit atomic maximum; the
+    window j < w or j >= n - w.  -> (win (2, 2w), stats (2, 3)) for the
+    real and imaginary parts."""
     n = n1 * n2
-    nb = n2 // S
-    j = (np.arange(n1)[:, None] * n2 + np.arange(nb)[:, None, None] * S
-         + np.arange(S))                                 # (nb, n1, S)
+    nb = n2 // strip
+    j = (np.arange(n1)[:, None] * n2
+         + np.arange(nb)[:, None, None] * strip
+         + np.arange(strip))                             # (nb, n1, strip)
     win = np.zeros((2, 2 * w))
     stats = np.zeros((2, 3))
     for h, part in enumerate((cols.real / n, cols.imag / n)):
@@ -920,28 +924,36 @@ def test_window_stats_keep_the_smallest_tied_index(n):
 
 @pytest.mark.parametrize("n,mics,want", [
     (4096, 4, (1, 1)), (512, 4, (1, 1)), (2048, 24, (1, 1)),
-    (2048, 25, (1, 0)), (2048, 26, (1, 0)), (4096, 10, (1, 1)),
-    (4096, 11, (1, 0)), (8192, 3, (128, 128)), (65536, 4, (256, 256)),
-    (65536, 10, (256, 256)), (65536, 11, (256, 0)), (1 << 18, 4, (512, 512)),
-    (1 << 18, 8, (512, 0)), (1 << 19, 4, (1024, 1024)), (1 << 20, 2, (0, 0))])
+    (2048, 25, (1, 1)), (2048, 26, (1, 1)), (4096, 10, (1, 1)),
+    (4096, 11, (1, 1)), (8192, 3, (128, 128)), (65536, 4, (256, 256)),
+    (65536, 10, (256, 256)), (65536, 11, (256, 256)),
+    (1 << 18, 4, (512, 512)), (1 << 18, 8, (512, 512)),
+    (1 << 19, 4, (1024, 1024)), (1 << 20, 2, (0, 1024)),
+    (1 << 22, 4, (0, 2048)), (1 << 23, 4, (0, 0))])
 def test_scene_stages_rule(n, mics, want):
-    """One rule for K3, K2 and K5 (``scene_stages``): up to 4,096 one block,
-    for the render always (its twiddles, base row and work row) and for
-    the GCC where a scene's packed mic rows and a spare row fit; K4a's
-    split from 8,192 on, each stage where its row pass's strips (the
-    render's two, the GCC's (mics + 1) // 2 + 1) fit one block's shared
-    memory; the radix-2 passes where neither fits."""
+    """One rule for K3, K2 and K5 (``scene_stages``): up to 4,096 one block
+    for the render (its twiddles, base row and work row), and for the
+    GCC one block a scene where a scene's packed mic rows and a spare row
+    fit, else a packed cross row through the mic rows' spectra
+    (``gcc_route``); K4a's split from 8,192 on, the render's where its row
+    pass's two strips fit one block's shared memory (to 2^19), the GCC's
+    to 2^22 (``gcc_rows`` where its (mics + 1) // 2 + 1 strips fit, else
+    through the spectra); the radix-2 passes elsewhere."""
     got = cf.scene_stages(n, mics)
     assert got == want
+    route = cf.gcc_route(n, mics)
+    assert got[1] == route.n1
     if n <= cf.FFT_REAL_ONE_BLOCK:
         assert got[0] == 1 and 8 * (n // 2 + 2 * n) <= cf.SMEM_OPTIN
         smem = 8 * (n // 2 + ((mics + 1) // 2 + 1) * n)
-        assert (smem <= cf.SMEM_OPTIN) == (got[1] == 1)
+        assert (smem <= cf.SMEM_OPTIN) == (route.kind == cf.ROUTE_BLOCK)
         return
-    for n1, strips in zip(got, (2, (mics + 1) // 2 + 1)):
-        if n1:
-            assert n1 == cf.fft_real_split(n)[0]
-            assert cf._row_pass_smem(n1, n // n1, strips) <= cf.SMEM_OPTIN
+    if got[0]:
+        assert got[0] == cf.fft_real_split(n)[0]
+        assert cf._row_pass_smem(got[0], n // got[0], 2) <= cf.SMEM_OPTIN
+    if route.kind == cf.ROUTE_ROWS:
+        assert cf._row_pass_smem(got[1], n // got[1],
+                                 (mics + 1) // 2 + 1) <= cf.SMEM_OPTIN
 
 
 # ---------------------------------------------------------------------------
@@ -1046,16 +1058,14 @@ def corr_split_model(a, b, mask, n, strip=None):
     return out
 
 
-def gcc_spectra_model(sig, pairs_i, pairs_j, n, mask):
-    """K1 above 2^20 (``gcc_all_spectra``): sig (scenes, mics, len) -> K4a's
-    two passes (``fft_real_model``) into the spectra of rows scene * mics +
-    mic, each bin written once; ``corr_rows`` with ``PairIndexLoad``
-    (packed cross row scene * couples + c reads rows scene * mics +
-    pairs_i[p] and + pairs_j[p] for p = 2c, 2c + 1); ``corr_cols`` writing
-    pair 2c from the real part and 2c + 1 from the imaginary part (none for
-    an odd pair count's last couple) -> (scenes, P, n)."""
+def gcc_spectra_cross_model(sig, pairs_i, pairs_j, n, mask):
+    """The spectra route's first three launches (``spectra_cross``): sig
+    (scenes, mics, len) -> K4a's two passes (``fft_real_model``) into the
+    spectra of rows scene * mics + mic, each bin written once; ``corr_rows``
+    with ``PairIndexLoad`` (packed cross row scene * couples + c reads rows
+    scene * mics + pairs_i[p] and + pairs_j[p] for p = 2c, 2c + 1) ->
+    yields (scene, c, packed cross row (n1, n2))."""
     scenes, mics, length = sig.shape
-    n1, n2 = cf.fft_real_split(n)
     spec, writes = fft_real_model(sig.reshape(scenes * mics, length), n)
     assert np.array_equal(writes, np.ones_like(writes))
     pairs = len(pairs_i)
@@ -1070,19 +1080,79 @@ def gcc_spectra_model(sig, pairs_i, pairs_j, n, mask):
                             spec[m0 + pairs_j[2 * c + 1]])
         return first + (None, None)
 
-    cols = cf.split_strips(n1, n2)[0]
-    out = np.full((scenes, pairs, n), np.nan)
     crosses = corr_rows_model(map(load, range(scenes * couples)), mask, n)
     for rc, cross in enumerate(crosses):
+        yield divmod(rc, couples) + (cross,)
+
+
+def gcc_spectra_model(sig, pairs_i, pairs_j, n, mask):
+    """K1 on the spectra route (``spectra_cross`` then ``corr_cols``):
+    ``gcc_spectra_cross_model``, then ``corr_cols`` writing pair 2c from
+    the real part and 2c + 1 from the imaginary part (none for an odd pair
+    count's last couple) -> (scenes, P, n)."""
+    scenes = sig.shape[0]
+    n1, n2 = cf.fft_real_split(n)
+    pairs = len(pairs_i)
+    cols = cf.split_strips(n1, n2)[0]
+    out = np.full((scenes, pairs, n), np.nan)
+    for scene, c, cross in gcc_spectra_cross_model(sig, pairs_i, pairs_j, n,
+                                                   mask):
         rows, writes = corr_cols_model(cross, n1, n2, cols)
         assert np.array_equal(writes, np.ones(n, int))
-        scene, c = divmod(rc, couples)
         for h in range(2):
             if 2 * c + h < pairs:
                 assert np.isnan(out[scene, 2 * c + h]).all()
                 out[scene, 2 * c + h] = rows[h]
     assert not np.isnan(out).any()
     return out
+
+
+def gcc_spectra_window_model(sig, pairs_i, pairs_j, n, wq, mask, seed=0):
+    """K2's (and K5's) GCC stage on the spectra route: the same three
+    launches, then ``window_cols`` over strips of the route's columns (16,
+    8 at n1 = 2,048), its blocks in a shuffled order -> (win (scenes, P,
+    2w), stats (scenes, P, 3))."""
+    scenes = sig.shape[0]
+    n1, n2 = cf.fft_real_split(n)
+    cols = cf.split_strips(n1, n2)[0]
+    pairs = len(pairs_i)
+    couples = (pairs + 1) // 2
+    w = wq * 128
+    rng = np.random.default_rng(seed)
+    win = np.zeros((scenes, 2 * couples, 2 * w))
+    stats = np.zeros((scenes, 2 * couples, 3))
+    for scene, c, cross in gcc_spectra_cross_model(sig, pairs_i, pairs_j, n,
+                                                   mask):
+        back = _cols_back(cross[None], n1, n2, cols)[0]
+        order = rng.permutation(n2 // cols)
+        cw, cst = window_stats_model(back, n1, n2, w, order, cols)
+        win[scene, 2 * c:2 * c + 2] = cw
+        stats[scene, 2 * c:2 * c + 2] = cst
+    return win[:, :pairs], stats[:, :pairs]
+
+
+def spectra_block_model(sig, pairs_i, pairs_j, n, mask):
+    """The spectra block route (n <= 4,096): ``fft_real_block`` over the
+    mic rows (``fft_real_model``) into their spectra, then ``corr_block``
+    with ``PairIndexLoad``: block rc = scene * couples + c packs the
+    whitened, band-masked cross-spectra of pairs 2c and 2c + 1 of the
+    scene from bins 0..n/2 (``store_packed``) and inverts -> yields
+    (scene, c, the unscaled packed inverse (n,)) for the epilogue."""
+    scenes, mics, length = sig.shape
+    assert cf.fft_real_split(n)[0] == 1
+    spec, writes = fft_real_model(sig.reshape(scenes * mics, length), n)
+    assert np.array_equal(writes, np.ones_like(writes))
+    pairs = len(pairs_i)
+    for rc in range(scenes * ((pairs + 1) // 2)):
+        scene, c = divmod(rc, (pairs + 1) // 2)
+        m0 = scene * mics
+        ya = _whiten(spec[m0 + pairs_i[2 * c]], spec[m0 + pairs_j[2 * c]])
+        yb = np.zeros_like(ya)
+        if 2 * c + 1 < pairs:
+            yb = _whiten(spec[m0 + pairs_i[2 * c + 1]],
+                         spec[m0 + pairs_j[2 * c + 1]])
+        work = _store_packed(ya * mask, yb * mask, n)
+        yield scene, c, block_fft(work[:, None], -1.0)[:, 0]
 
 
 def _spectra(rng, rows, n):
@@ -1148,6 +1218,73 @@ def test_gcc_spectra_route_matches_gcc_all_pairs(bits, scenes, mics):
     want = cf.gcc_all_pairs_plain(torch.from_numpy(sig), pi, pj, n,
                                   torch.from_numpy(mask)).numpy()
     assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("scenes,mics,n,wq", [
+    (2, 5, 8192, 2), (1, 6, 1 << 18, 16), (1, 3, 1 << 21, 32)])
+def test_gcc_spectra_window_matches_gcc_windowed(scenes, mics, n, wq):
+    """K2's and K5's GCC stage through the mic rows' spectra: K4a's two
+    passes, the pair-indexed row pass, ``window_cols`` over the route's
+    column strips (16 at 8,192 and 2^18, 8 at 2^21) with its blocks in any
+    order, at 2 scenes of 5 mics (rows packed across scenes, an even pair
+    count), 6 mics at 2^18 (past ``gcc_rows``' 4) and 3 mics at 2^21 (an
+    odd pair count), against ``gcc_windowed_plain``: the window within
+    1e-9 of the max, the argmax equal, the rest within 1e-6."""
+    route = cf.gcc_route(n, mics)
+    assert route.kind in (cf.ROUTE_SPECTRA, cf.ROUTE_ROWS)
+    rng = np.random.default_rng(scenes * 1000 + mics * 10 + wq)
+    sig = rng.standard_normal((scenes, mics, n - n // 3))
+    pi, pj = _pairs(mics)
+    mask = cf.band_mask(n, (300.0, 3400.0), 16000.0,
+                        dtype=torch.float64).numpy()
+    win, stats = gcc_spectra_window_model(sig, pi, pj, n, wq, mask)
+    w2, s2 = cf.gcc_windowed_plain(torch.from_numpy(sig), pi, pj, n, wq,
+                                   torch.from_numpy(mask))
+    w2, s2 = w2.numpy(), s2.numpy()
+    assert np.abs(win - w2).max() < 1e-9 * np.abs(w2).max()
+    assert np.array_equal(stats[..., 2], s2[..., 2])
+    assert np.abs(stats[..., :2] - s2[..., :2]).max() < 1e-6
+
+
+@pytest.mark.parametrize("scenes,mics,n", [(2, 11, 4096), (1, 25, 2048),
+                                           (3, 5, 1024)])
+def test_spectra_block_matches_gcc_all_pairs_and_windowed(scenes, mics, n):
+    """The spectra block route at n <= 4,096: K4a's one-block transform
+    into the spectra, then a block a packed cross row by pair index, with
+    K1's epilogue (``CorrOut``, against ``gcc_all_pairs_plain`` within
+    1e-9 of the max) and K2's (``WindowOut``'s window and block
+    reductions at ``block_threads(n)``, against ``gcc_windowed_plain``:
+    the argmax equal); 11 mics at 4,096 and 25 at 2,048 (one past the
+    one-block limit) and 3 scenes of 5 mics (rows packed across scenes)."""
+    rng = np.random.default_rng(scenes * 100 + mics + n)
+    sig = rng.standard_normal((scenes, mics, n - n // 5))
+    pi, pj = _pairs(mics)
+    pairs = len(pi)
+    mask = cf.band_mask(n, (300.0, 3400.0), 16000.0,
+                        dtype=torch.float64).numpy()
+    wq = n // 512
+    w = wq * 128
+    t = np.arange(n)
+    at = np.where(t < w, w + t, np.where(t >= n - w, t - (n - w), -1))
+    corr = np.full((scenes, pairs, n), np.nan)
+    win = np.full((scenes, pairs, 2 * w), np.nan)
+    stats = np.full((scenes, pairs, 3), np.nan)
+    for scene, c, inv in spectra_block_model(sig, pi, pj, n, mask):
+        for h, row in enumerate((inv.real / n, inv.imag / n)):
+            p = 2 * c + h
+            if p < pairs:
+                corr[scene, p] = row
+                win[scene, p, at[at >= 0]] = row[at >= 0]
+                total, top, arg = block_reduce_model(row, block_threads(n))
+                stats[scene, p] = total / n, top, arg
+    t64 = torch.from_numpy
+    want = cf.gcc_all_pairs_plain(t64(sig), pi, pj, n, t64(mask)).numpy()
+    assert np.abs(corr - want).max() < 1e-9 * np.abs(want).max()
+    w2, s2 = cf.gcc_windowed_plain(t64(sig), pi, pj, n, wq, t64(mask))
+    w2, s2 = w2.numpy(), s2.numpy()
+    assert np.abs(win - w2).max() < 1e-9 * np.abs(w2).max()
+    assert np.array_equal(stats[..., 2], s2[..., 2])
+    assert np.abs(stats[..., :2] - s2[..., :2]).max() < 1e-9
 
 
 def test_port_matches_jax_package_at_2_21():
@@ -1305,27 +1442,26 @@ def test_corr_block_matches_whitened_corr(n):
 
 @pytest.mark.parametrize("n,mics,want", [
     (4, 2, 1), (128, 4, 1), (4096, 4, 1), (4096, 8, 1), (4096, 10, 1),
-    (4096, 11, 0), (2048, 24, 1), (2048, 26, 0), (8192, 3, 128),
-    (65536, 4, 256), (65536, 10, 256), (65536, 11, 0), (1 << 18, 8, 0),
-    (1 << 19, 4, 1024), (1 << 20, 2, 0), (1 << 21, 4, 2048),
+    (4096, 11, 1), (2048, 24, 1), (2048, 26, 1), (8192, 3, 128),
+    (65536, 4, 256), (65536, 10, 256), (65536, 11, 256), (1 << 18, 8, 512),
+    (1 << 19, 4, 1024), (1 << 20, 2, 1024), (1 << 21, 4, 2048),
     (1 << 21, 64, 2048), (1 << 22, 4, 2048), (1 << 23, 4, 0)])
 def test_gcc_schedule_rule(n, mics, want):
-    """K1's schedule (``gcc_schedule``) up to 2^20 is K2's GCC stage's
-    (``scene_stages``), one rule: one block up to 4,096 where the
+    """K1's schedule (``gcc_schedule``) is K2's GCC stage's (``scene_stages``
+    and ``gcc_route``), one rule: one block up to 4,096 (a scene where the
     twiddles, a scene's widest span of packed rows and a spare row fit one
-    block's shared memory; above, the split; else the passes.  Above 2^20
-    K1 alone takes K4a's split, n1 = 2,048, at any mic count (its row pass
-    holds one strip), to 2^22; the passes above."""
+    block's shared memory, else a packed cross row through the spectra);
+    K4a's split from 8,192 to 2^22 (``gcc_rows`` or the spectra, which
+    hold one strip at any mic count); the passes above."""
     got = cf.gcc_schedule(n, mics)
-    assert got == want
-    if n <= cf.STAGE_SPLIT_MAX:
-        assert got == cf.scene_stages(n, mics)[1]
-    else:
-        assert cf.scene_stages(n, mics) == (0, 0)
+    assert got == want == cf.scene_stages(n, mics)[1]
+    route = cf.gcc_route(n, mics)
+    assert got == route.n1
+    if 1 < got:
         assert got == cf._split_n1(n)
     if n <= cf.FFT_REAL_ONE_BLOCK:
         smem = 8 * (n // 2 + ((mics + 1) // 2 + 1) * n)
-        assert (smem <= cf.SMEM_OPTIN) == (got == 1)
+        assert (smem <= cf.SMEM_OPTIN) == (route.kind == cf.ROUTE_BLOCK)
 
 
 @pytest.mark.parametrize("n,want", [

@@ -94,6 +94,30 @@ def test_gcc_plain_matches_tpu_kernel_interpret(rng):
     assert float(np.max(np.abs(got.numpy() - want))) < 1e-5
 
 
+@pytest.mark.parametrize("m,nfft,length", [(12, 4096, 3000),
+                                           (6, 1 << 18, 200000)])
+def test_gcc_plain_matches_tpu_kernel_on_the_spectra_routes(m, nfft,
+                                                            length):
+    """K1's plain twin against bfly_gcc_all_pairs in interpret mode at
+    shapes where K1 goes through the mic rows' spectra on the card
+    (``gcc_route``): 12 mics at 4,096 (one block a packed cross row) and
+    6 mics at 2^18 (the split past ``gcc_rows``), the band on (f32, 1e-5
+    absolute on correlations bounded by 1)."""
+    kind = cuda_fft.gcc_route(nfft, m).kind
+    assert kind == (cuda_fft.ROUTE_SPECTRA_BLOCK if nfft <= 4096
+                    else cuda_fft.ROUTE_SPECTRA)
+    sig = np.random.default_rng(m + nfft).standard_normal(
+        (m, length)).astype(np.float32)
+    pi, pj = _pairs(m)
+    want = np.asarray(pf.bfly_gcc_all_pairs(
+        jnp.asarray(sig), np.array(pi), np.array(pj), nfft, band=BAND,
+        fs=44100.0, interpret=True))
+    mask = cuda_fft.band_mask(nfft, BAND, 44100.0)
+    got = cuda_fft.gcc_all_pairs(torch.from_numpy(sig), pi, pj, nfft, mask)
+    assert got.shape == (len(pi), nfft)
+    assert float(np.max(np.abs(got.numpy() - want))) < 1e-5
+
+
 @pytest.mark.parametrize("src,max_delay", [((0.2, 0.6, 0.4), 0.05),
                                            ((0.5, 0.5, 0.5), 0.05),
                                            ((0.9, 0.1, 0.3), 0.0005)])

@@ -4,9 +4,11 @@ solvers), and, with the wrappers' CUDA branch forced and the kernel library
 stubbed as tests/test_torch_routing.py does it, each configuration's card
 half launches the kernels its ``route`` names with that route's schedule,
 and together they reach every sweep route the card runs: K5 fused, K3 then
-K2 on the split, K1 in one block, on the split and on the radix-2 passes,
-K2 / K3 / K5 in one block at nfft <= 4,096 and K2 / K5's GCC on the passes
-that remain there (12 mics at 4,096), and K4a + K9 on a single pair,
+K2 on the split, K1 in one block, on the split with ``gcc_rows`` and
+through its mic rows' spectra in one block (11 mics at 4,096) and on the
+split (64 mics at 65,536), K2 / K3 / K5 in one block at nfft <= 4,096
+and K2 / K5's GCC through the spectra in one block where a scene's rows
+do not fit one (12 mics at 4,096), and K4a + K9 on a single pair,
 both on their split up to 2^22 (n1 = 2,048 at 2^21 and 2^22).  The
 stubbed kernels write nothing, so the
 solver tails downstream of them are stubbed too; the fuzz's plain half and
@@ -33,8 +35,8 @@ CONFIGS = fz.configs()
 
 # Positions of (nfft, n1, ...) in each wrapper's launch arguments.
 SCHEDULE_ARGS = {"fft_real": (3, 4), "whitened_corr": (3, 4),
-                 "gcc_all_pairs": (4, 5), "gcc_windowed": (4, 5),
-                 "delay_sum": (7, 8), "scene_windowed": (7, 8, 9)}
+                 "gcc_all_pairs": (4, 5, 6), "gcc_windowed": (4, 5, 6),
+                 "delay_sum": (7, 8), "scene_windowed": (7, 8, 9, 10)}
 
 
 class _StubLibrary:
@@ -121,20 +123,24 @@ def test_configurations_reach_every_sweep_route():
 
     k5 = stages("scene_windowed")
     assert any(n <= 4096 and lab == "fused block/block" for n, lab in k5)
-    assert any(n <= 4096 and lab == "fused block/passes" for n, lab in k5)
+    assert any(n <= 4096 and lab == "fused block/spectra block"
+               for n, lab in k5)
     assert any(label.startswith("fused split") for _, label in k5)
     for kernel in ("delay_sum", "gcc_windowed"):
         labels = stages(kernel)
         assert any(n <= 4096 and lab == "block" for n, lab in labels)
         assert any(lab.startswith("split") for _, lab in labels)
-    # What stays on the passes at <= 4,096: K2's GCC where a scene's rows
-    # do not fit one block; K3 never does.
-    assert (4096, "passes") in stages("gcc_windowed")
-    assert not any(n <= 4096 and lab == "passes"
-                   for n, lab in stages("delay_sum"))
+    # Where a scene's rows do not fit one block at <= 4,096, K2's GCC
+    # goes through the mic rows' spectra in one block; nothing of K1, K2,
+    # K3 or K5 runs the radix-2 passes.
+    assert (4096, "spectra block") in stages("gcc_windowed")
+    for kernel in ("delay_sum", "gcc_windowed", "gcc_all_pairs",
+                   "scene_windowed"):
+        assert not any("passes" in lab for _, lab in stages(kernel))
     k1 = {lab.split()[0] for _, lab in stages("gcc_all_pairs")}
-    assert k1 == {"block", "split", "passes"}
-    assert (65536, "passes") in stages("gcc_all_pairs")      # 64 mics
+    assert k1 == {"block", "split", "spectra"}
+    assert (4096, "spectra block") in stages("gcc_all_pairs")  # 11 mics
+    assert (65536, "spectra 256") in stages("gcc_all_pairs")   # 64 mics
     k4a = stages("fft_real")
     assert (1 << 21, "split 2048") in k4a and (1 << 22, "split 2048") in k4a
     assert {lab.split()[0] for _, lab in k4a} == {"block", "split"}

@@ -4,11 +4,14 @@ returns False), the kernel library is a stub, and every launch through
 ``cuda_fft._launch`` is recorded with its arguments instead of run.  The
 outputs are left as allocated, so these tests read the launches only.
 
-They hold K4a's, K4b's, K6's, K1's and K9's split up to 2^22 (strips of
-8 at 2,048; K1 through its mic rows' spectra above 2^20) and their
-radix-2 passes above, K2's, K3's and K5's passes above 2^20, the row
-chunks of K4a, K4b, K6 and K9, the scene chunks of K2, K3 and K5 at the sweep's 65,535 grid
-limit, their one-block schedule up to 4,096 points and its scratch, the exact-length parity path (K7 only), the api from recorded files
+They hold K4a's, K4b's, K6's and K9's split up to 2^22 (strips of 8 at
+2,048) and their radix-2 passes above, the GCC routes of K1, K2 and K5
+(``gcc_route``: one block a scene, ``gcc_rows``, the mic rows' spectra on
+the split and in one block) on both sides of every fit limit and the
+passes above 2^22 alone, K3's passes from 2^20, the row chunks of K4a,
+K4b, K6 and K9, the scene chunks of K2, K3 and K5 at the sweep's 65,535
+grid limit, their one-block schedules up to 4,096 points and their
+scratch, the exact-length parity path (K7 only), the api from recorded files
 (K1, K4a, K4b), the compat layer's single pair (K4a + K9 at a power of
 two, K7 otherwise), the api from a recording long enough for K1 at 2^21
 (one launch on the split), array calibration (K1 over the events at a power of
@@ -163,25 +166,32 @@ N1_ARGS = {"gcc_all_pairs": slice(4, 6), "gcc_windowed": slice(4, 6),
 
 
 @pytest.mark.parametrize("kernel,nfft,n1", [
-    (k, n, 0) for k in ("gcc_windowed", "delay_sum", "scene_windowed")
-    for n in (1 << 20, 1 << 21, 1 << 22)] + [
-    ("gcc_all_pairs", 1 << 20, 0), ("gcc_all_pairs", 1 << 21, 2048),
-    ("gcc_all_pairs", 1 << 22, 2048), ("gcc_all_pairs", 1 << 23, 0),
+    (k, n, n1) for k in ("gcc_windowed", "scene_windowed", "gcc_all_pairs")
+    for n, n1 in ((1 << 20, 1024), (1 << 21, 2048), (1 << 22, 2048))] + [
+    ("delay_sum", n, 0) for n in (1 << 20, 1 << 21, 1 << 22)] + [
+    ("gcc_all_pairs", 1 << 23, 0), ("gcc_windowed", 1 << 23, 0),
+    ("scene_windowed", 1 << 23, 0),
     ("whitened_corr", 1 << 20, 1024), ("whitened_corr", 1 << 21, 2048),
     ("whitened_corr", 1 << 22, 2048), ("whitened_corr", 1 << 23, 0)])
 def test_other_kernels_keep_their_routes_above_2_20(launches, kernel, nfft,
                                                     n1):
-    """K4a's, K4b's and K6's split reaches 2^22, and so do K1's and K9's:
-    n1 = 2,048 at 2^21 and 2^22 (K1 at any mic count, through its mic
-    rows' spectra), the radix-2 passes (n1 = 0) at 2^23.  K2, K3 and K5 (4
-    mics a scene) keep the passes from 2^20 on, as K1 does at 2^20: their
-    row passes' strips do not fit there (``scene_stages``); K9 takes its
-    split (1,024) at 2^20."""
+    """K4a's, K4b's and K6's split reaches 2^22, and so do K9's and the
+    GCCs' of K1, K2 and K5 (4 mics a scene): n1 = 1,024 at 2^20 and 2,048
+    at 2^21 and 2^22, the GCCs through their mic rows' spectra, the radix-2
+    passes (n1 = 0) at 2^23.  K3's render keeps the passes from 2^20 on,
+    where its row pass's two strips do not fit (``scene_stages``), and so
+    does K5's render stage."""
     _route(kernel, nfft)
     (args,) = _named(launches, kernel)
-    assert args[N1_ARGS[kernel]] == (nfft,) + (n1,) * (
-        N1_ARGS[kernel].stop - N1_ARGS[kernel].start - 1)
-    assert cf.scene_stages(min(nfft, 1 << 22), 4) == (0, 0)
+    if kernel == "scene_windowed":
+        assert args[7:10] == (nfft, 0, n1)
+    else:
+        assert args[N1_ARGS[kernel]] == (nfft, n1)
+    assert cf.scene_stages(nfft, 4) == (0, cf.gcc_schedule(nfft, 4))
+    if kernel in ("gcc_all_pairs", "gcc_windowed", "scene_windowed"):
+        kind = args[10 if kernel == "scene_windowed" else 6]
+        assert kind == (cf.ROUTE_PASSES if nfft > cf.FFT_REAL_MAX
+                        else cf.ROUTE_SPECTRA)
 
 
 @pytest.mark.parametrize("nfft,strips", [(1 << 21, (8, 16, 16)),
@@ -190,13 +200,13 @@ def test_k1_and_k9_above_2_20_take_k4a_strips(launches, nfft, strips):
     """Above 2^20 K1 launches with K4a's strips — 8 columns, K4a's pass-2
     strip (``fft_real_rows_strip``) and the row pass's (16 rows at 2^21, 8
     at 2^22) — K4a's packed rows and the cross rows in one buffer, and the
-    spectra in a second; K9 with the same column and row strips; up to
-    2^20 K1's split passes no strip."""
+    spectra in a second; K9 with the same column and row strips; on
+    ``gcc_rows`` (65,536 at 4 mics) K1's split passes no strip."""
     _route("gcc_all_pairs", nfft)
     _route("whitened_corr", nfft)
     (k1,) = _named(launches, "gcc_all_pairs")
-    assert k1[6:9] == strips
-    spec0, spec1, cpl0, cpl1 = k1[15:19]
+    assert k1[6] == cf.ROUTE_SPECTRA and k1[7:10] == strips
+    spec0, spec1, cpl0, cpl1 = k1[16:20]
     assert spec0 == cpl0 and None not in (spec0, spec1) and cpl1 is None
     (k9,) = _named(launches, "whitened_corr")
     assert k9[5:7] == (strips[0], strips[2])
@@ -204,7 +214,162 @@ def test_k1_and_k9_above_2_20_take_k4a_strips(launches, nfft, strips):
     cf.gcc_all_pairs(torch.zeros(1, 4, 50000), [0], [1], 65536,
                      torch.ones(32769))
     (k1,) = _named(launches, "gcc_all_pairs")
-    assert k1[5:9] == (256, 0, 0, 0)
+    assert k1[5:10] == (256, cf.ROUTE_ROWS, 0, 0, 0)
+
+
+# ---------------------------------------------------------------------------
+# The GCC routes of K1, K2 and K5: one rule, every fit limit
+# ---------------------------------------------------------------------------
+
+# Where each GCC wrapper's (n1, route, column strip, K4a's pass-2 strip,
+# row strip) and its buffers sit in its launch's arguments: K1's (spec0,
+# spec1, cross0, cross1), K2's the same and its (keys, count, part), K5's
+# (packed mic rows 0 and 1, cross0, cross1, spectra) and (keys, count,
+# part).
+GCC_ARGS = {"gcc_all_pairs": (slice(5, 10), slice(16, 20), None),
+            "gcc_windowed": (slice(5, 10), slice(17, 21), slice(21, 24)),
+            "scene_windowed": (slice(9, 14), slice(27, 32), slice(32, 35))}
+# (nfft, the most mics a scene that one block a scene or ``gcc_rows``
+# holds): one block up to 52 mics at 1,024, 24 at 2,048, 10 at 4,096;
+# ``gcc_rows`` up to 52 at 8,192, 24 at 16,384 and 32,768, 10 at 65,536
+# and 131,072, 4 at 2^18 and 2^19; never at 2^20 and above.
+FIT_LIMITS = ((1024, 52), (2048, 24), (4096, 10), (8192, 52), (16384, 24),
+              (32768, 24), (65536, 10), (131072, 10), (1 << 18, 4),
+              (1 << 19, 4), (1 << 20, 1), (1 << 21, 1), (1 << 22, 1))
+ROUTE_CASES = [(n, m, old) for n, limit in FIT_LIMITS
+               for m, old in ((limit, True), (limit + 1, False))
+               if m >= 2] + [(1 << 23, 4, False)]
+
+
+def _gcc_call(kernel, nfft, mics):
+    """One call of a GCC wrapper, one scene of ``mics`` mics at nfft."""
+    from pyaudiolocalization_tpu_torch.parallel.sweep import _pairs
+    pi, pj = _pairs(mics)
+    length = min(nfft, 300)
+    mask = torch.ones(nfft // 2 + 1)
+    if kernel == "gcc_all_pairs":
+        cf.gcc_all_pairs(torch.zeros(1, mics, length), pi, pj, nfft, mask)
+    elif kernel == "gcc_windowed":
+        cf.gcc_windowed(torch.zeros(1, mics, length), pi, pj, nfft, 1, mask)
+    else:
+        cf.scene_windowed(torch.zeros(1, length), torch.zeros(1, mics, 1),
+                          torch.ones(1, mics, 1), pi, pj, nfft, length, 1,
+                          torch.ones(length), mask)
+
+
+@pytest.mark.parametrize("kernel", list(GCC_ARGS))
+@pytest.mark.parametrize("nfft,mics,fits", ROUTE_CASES)
+def test_gcc_routes_by_shape(launches, kernel, nfft, mics, fits):
+    """K1, K2 and K5's GCC stage on both sides of every fit limit: where
+    one block a scene or ``gcc_rows`` fits they launch as before the
+    spectra routes (n1 1 or the split's, no strip, the same buffers);
+    beyond it, up to 2^22, through the mic rows' spectra — in one block up
+    to 4,096 (n1 = 1, the spectra and nothing else), on the split above
+    (K4a's strips, K4a's packed buffer shared with the cross rows, the
+    spectra, K2's and K5's partials) — never on the radix-2 passes, which
+    start at 2^23.  K5's route is K2's at every shape."""
+    _gcc_call(kernel, nfft, mics)
+    (args,) = _named(launches, kernel)
+    sched, bufs, parts = GCC_ARGS[kernel]
+    n1, kind, cols, s2, rows = args[sched]
+    route = cf.gcc_route(nfft, mics)
+    assert (n1, kind) == (route.n1, route.kind)
+    split = cf.fft_real_split(nfft)[0]
+    if fits:
+        want = cf.ROUTE_BLOCK if nfft <= 4096 else cf.ROUTE_ROWS
+        assert (n1, kind) == (1 if nfft <= 4096 else split, want)
+    elif nfft > cf.FFT_REAL_MAX:
+        assert (n1, kind) == (0, cf.ROUTE_PASSES)
+    elif nfft <= 4096:
+        assert (n1, kind) == (1, cf.ROUTE_SPECTRA_BLOCK)
+    else:
+        assert (n1, kind) == (split, cf.ROUTE_SPECTRA)
+    if kind == cf.ROUTE_SPECTRA:
+        assert (cols, rows) == cf.split_strips(split, nfft // split)
+        assert s2 == cf.fft_real_rows_strip(nfft // split, (mics + 1) // 2)
+    else:
+        assert (cols, s2, rows) == (0, 0, 0)
+    got = [b is not None for b in args[bufs]]
+    if kernel == "scene_windowed":
+        # (packed mic rows 0 and 1, cross0, cross1, spectra); the packed
+        # rows take the cross rows on the spectra route.
+        render_passes = cf.scene_stages(nfft, mics)[0] == 0
+        want = {cf.ROUTE_BLOCK: [True, False, False, False, False],
+                cf.ROUTE_ROWS: [True, False, True, False, False],
+                cf.ROUTE_SPECTRA: [True, render_passes, True, False, True],
+                cf.ROUTE_SPECTRA_BLOCK: [True, False, False, False, True],
+                cf.ROUTE_PASSES: [True, True, True, True, False]}[kind]
+        if kind == cf.ROUTE_SPECTRA:
+            assert args[bufs][2] == args[bufs][0]
+    else:
+        # (spec0, spec1, cross0, cross1): spec1 the spectra on the
+        # spectra routes, cross0 K4a's packed buffer on the split's.
+        want = {cf.ROUTE_BLOCK: [False] * 4,
+                cf.ROUTE_ROWS: [True, False, True, False],
+                cf.ROUTE_SPECTRA: [True, True, True, False],
+                cf.ROUTE_SPECTRA_BLOCK: [False, True, False, False],
+                cf.ROUTE_PASSES: [True] * 4}[kind]
+        if kind == cf.ROUTE_SPECTRA:
+            assert args[bufs][2] == args[bufs][0]
+    assert got == want
+    if parts is not None:
+        split_route = kind in (cf.ROUTE_ROWS, cf.ROUTE_SPECTRA)
+        assert all((p is not None) == split_route for p in args[parts])
+
+
+def test_no_gcc_route_runs_the_passes_up_to_2_22():
+    """For 2 to 128 mics at every power of two from 4 to 2^22 the GCC of
+    K1, K2 and K5 takes one block, ``gcc_rows`` or the mic rows' spectra,
+    never the radix-2 passes; at 2^23 every mic count takes the passes.
+    ``gcc_schedule`` and ``scene_stages`` read the route's n1."""
+    for bits in range(2, 24):
+        nfft = 1 << bits
+        for mics in range(2, 129):
+            route = cf.gcc_route(nfft, mics)
+            assert (route.kind == cf.ROUTE_PASSES) == (bits == 23)
+            assert cf.gcc_schedule(nfft, mics) == route.n1
+            assert cf.scene_stages(nfft, mics)[1] == route.n1
+            if route.kind == cf.ROUTE_SPECTRA:
+                assert route.n1 == cf.fft_real_split(nfft)[0]
+
+
+@pytest.mark.parametrize("nfft,mics,want", [
+    (4096, 10, (cf.ROUTE_BLOCK, 1)), (2048, 24, (cf.ROUTE_BLOCK, 1)),
+    (1024, 52, (cf.ROUTE_BLOCK, 1)), (8192, 52, (cf.ROUTE_ROWS, 128)),
+    (32768, 24, (cf.ROUTE_ROWS, 256)), (65536, 4, (cf.ROUTE_ROWS, 256)),
+    (65536, 10, (cf.ROUTE_ROWS, 256)), (1 << 19, 4, (cf.ROUTE_ROWS, 1024))])
+def test_shapes_that_fit_keep_their_launches(launches, nfft, mics, want):
+    """The shapes one block a scene or ``gcc_rows`` held before the
+    spectra routes launch K1, K2 and K5 as they did: the same n1, no
+    strip, K1's and K2's packed mic rows and cross rows (none in one
+    block), no spectra."""
+    for kernel in GCC_ARGS:
+        _gcc_call(kernel, nfft, mics)
+        (args,) = _named(launches, kernel)
+        sched, bufs, _ = GCC_ARGS[kernel]
+        assert args[sched] == (want[1], want[0], 0, 0, 0)
+        if kernel != "scene_windowed":
+            split = want[0] == cf.ROUTE_ROWS
+            assert [b is not None for b in args[bufs]] == [split, False,
+                                                           split, False]
+        else:
+            assert args[bufs][4] is None
+        launches.clear()
+
+
+def test_window_partials_follow_the_column_strip():
+    """``window_cols``' partials: a block sum per column strip, 16
+    columns on ``gcc_rows`` and up to 2^20, 8 at 2^21 and 2^22; none in
+    one block."""
+    for nfft, mics, blocks in ((65536, 4, 16), (1 << 20, 4, 64),
+                               (1 << 21, 4, 128), (1 << 22, 12, 256)):
+        keys, count, part = cf._window_scratch(3, nfft,
+                                               cf.gcc_route(nfft, mics),
+                                               "cpu")
+        assert (keys.numel(), count.numel(), part.numel()) == (
+            6, 3, 2 * 3 * blocks)
+    assert cf._window_scratch(3, 4096, cf.gcc_route(4096, 12), "cpu") == (
+        None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -305,16 +470,19 @@ def test_scene_wrappers_chunk_by_one_rule(launches, scenes, chunks):
         assert [a[1] for a in _named(launches, name)] == chunks, name
 
 
-@pytest.mark.parametrize("nfft,mics,n1g", [(512, 4, 1), (2048, 3, 1),
-                                          (4096, 10, 1), (4096, 11, 0),
-                                          (2048, 25, 0)])
-def test_scene_wrappers_run_one_block_up_to_4096(launches, nfft, mics, n1g):
+@pytest.mark.parametrize("nfft,mics,kind", [
+    (512, 4, cf.ROUTE_BLOCK), (2048, 3, cf.ROUTE_BLOCK),
+    (4096, 10, cf.ROUTE_BLOCK), (4096, 11, cf.ROUTE_SPECTRA_BLOCK),
+    (2048, 25, cf.ROUTE_SPECTRA_BLOCK)])
+def test_scene_wrappers_run_one_block_up_to_4096(launches, nfft, mics, kind):
     """Up to 4,096 points K3 launches with n1 = 1 and no scratch, K2 with
-    the GCC stage's n1 (1 where a scene's rows fit one block, else 0, the
-    passes, with their two ping-pong buffers), and K5 with both: in one
-    block only the packed mic rows that carry the finished signals from
-    ``render_block`` to ``window_block``, a second copy and the cross rows
-    where its GCC runs the passes; no partials buffer either way."""
+    the GCC stage's route, n1 = 1 either way: one block a scene where a
+    scene's rows fit, no scratch; else through the mic rows' spectra, a
+    block a packed cross row, with the spectra alone (no packed rows, no
+    cross rows); and K5 with both: the packed mic rows that carry the
+    finished signals from ``render_block`` to the GCC stage, and the
+    spectra beyond the one-block mic limit; no partials buffer either
+    way."""
     scenes, out, wq = 3, nfft - nfft // 8, 1
     pi, pj = tsw._pairs(mics)
     base = torch.zeros(scenes, out)
@@ -328,17 +496,20 @@ def test_scene_wrappers_run_one_block_up_to_4096(launches, nfft, mics, n1g):
     cf.gcc_windowed(torch.zeros(scenes, mics, out), pi, pj, nfft, wq, mask)
     cf.scene_windowed(base, tau, gains, pi, pj, nfft, out, wq, fade, mask,
                       snr, seeds)
+    spectra = kind == cf.ROUTE_SPECTRA_BLOCK
     (k3,) = _named(launches, "delay_sum")
     assert k3[8] == 1 and k3[15:19] == (None,) * 4
     (k2,) = _named(launches, "gcc_windowed")
-    assert k2[5] == n1g and k2[17:20] == (None,) * 3
-    buffers = k2[13:17]   # spec0, spec1, c0, c1
-    assert buffers == (None,) * 4 if n1g else None not in buffers
+    assert k2[5:10] == (1, kind, 0, 0, 0) and k2[21:24] == (None,) * 3
+    # spec0, spec1 (the spectra), c0, c1
+    assert [b is not None for b in k2[17:21]] == [False, spectra, False,
+                                                  False]
     (k5,) = _named(launches, "scene_windowed")
-    assert k5[8:10] == (1, n1g) and k5[21:23] == (None, None)
-    assert k5[23] is not None and k5[27:30] == (None,) * 3
-    buffers = k5[24:27]   # z1, c0, c1
-    assert buffers == (None,) * 3 if n1g else None not in buffers
+    assert k5[8:11] == (1, 1, kind) and k5[25:27] == (None, None)
+    assert k5[27] is not None and k5[32:35] == (None,) * 3
+    # z1, c0, c1, the spectra
+    assert [b is not None for b in k5[28:32]] == [False, False, False,
+                                                  spectra]
 
 
 # ---------------------------------------------------------------------------

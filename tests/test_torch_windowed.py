@@ -63,6 +63,29 @@ def test_gcc_windowed_twin_matches_jax(m, lead, band, wq, nfft, length):
     _check_window(got, want)
 
 
+@pytest.mark.parametrize("m,nfft,length", [(12, 4096, 3000),
+                                           (6, 1 << 18, 200000)])
+def test_gcc_windowed_twin_matches_jax_on_the_spectra_routes(m, nfft,
+                                                             length):
+    """Shapes where K2's GCC goes through the mic rows' spectra on the card
+    (``cuda_fft.gcc_route``): 12 mics at 4,096, past one block a scene
+    (one block a packed cross row), and 6 mics at 2^18, past ``gcc_rows``
+    (the split), one scene, the band on; the twin against
+    ``bfly_gcc_windowed`` in interpret mode within the module's limits."""
+    kind = cf.gcc_route(nfft, m).kind
+    assert kind == (cf.ROUTE_SPECTRA_BLOCK if nfft <= 4096
+                    else cf.ROUTE_SPECTRA)
+    rng = np.random.default_rng(m + nfft)
+    x = rng.standard_normal((m, length)).astype(np.float32)
+    pi, pj = _pairs(m)
+    fs, band, wq = 44100.0, (300.0, 3400.0), 2
+    want = pf.bfly_gcc_windowed(jnp.asarray(x), np.array(pi), np.array(pj),
+                                nfft, wq, band=band, fs=fs, interpret=True)
+    got = cf.gcc_windowed(torch.from_numpy(x), pi, pj, nfft, wq,
+                          cf.band_mask(nfft, band, fs))
+    _check_window(got, want)
+
+
 def test_gcc_windowed_refuses_a_window_past_half_the_transform():
     x = torch.zeros((2, 100))
     with pytest.raises(ValueError, match="wq"):

@@ -10,13 +10,15 @@ solvers ``lm`` and ``srp``, and five single pairs up to a transform of
 names each configuration's): K5 fused (parallel/sweep.py
 ``_sim_est_fused``), K3 then K2 on the split (``_simulate`` +
 ``_estimate``), K1 on the full-correlation branch in one block, on the
-split and on the radix-2 passes (the 64-mic case at 65,536 stands in for
-tpu_kernel_check.py's check (b), the GCC beyond the split's strips), K2 /
-K3 / K5 in one block at nfft <= 4,096 and, with 12 mics at 4,096, K2 and
-K5's GCC stage on the passes that remain where a scene's rows do not fit
-one block, and K4a + K9 through ``models.tdoa.get_time_delays_phat`` at
-random lengths, above 2^20 both on their split of 8-wide strips (2^21,
-2^22: "split 2048").
+split with ``gcc_rows`` and, where those do not fit, through its mic
+rows' spectra (``cuda_fft.gcc_route``): in one block with 11 mics at
+4,096 ("spectra block"), on the split with 64 mics at 65,536 ("spectra
+256", standing in for tpu_kernel_check.py's check (b), the GCC beyond
+the split's strips), K2 / K3 / K5 in one block at nfft <= 4,096 and,
+with 12 mics at 4,096, K2 and K5's GCC stage through the spectra in one
+block, where a scene's rows do not fit one, and K4a + K9 through
+``models.tdoa.get_time_delays_phat`` at random lengths, above 2^20 both
+on their split of 8-wide strips (2^21, 2^22: "split 2048").
 
 For each configuration the scenes are drawn and rendered on the card
 (K3), then localized twice: on the card (the kernels: the fused K5 path
@@ -89,11 +91,11 @@ SWEEPS = (
     ("lm", False, 2, 16000.0, 1024, 4),     # a single pair
     ("srp", False, 4, 16000.0, 4096, 4),    # K1 in one block
     ("srp", True, 8, 16000.0, 4096, 4),     # K1 in one block, reverberant
-    ("srp", False, 11, 8000.0, 4096, 4),    # K1 on the passes (> 10 mics)
+    ("srp", False, 11, 8000.0, 4096, 4),    # K1 on the spectra, one block
     ("srp", False, 6, 44100.0, 65536, 4),   # K1 on the split
     ("srp", False, 12, 48000.0, 32768, 4),  # K1 on the split, 66 pairs
-    ("srp", False, 64, 16000.0, 65536, 2),  # K1 beyond the split's strips
-    ("lm", False, 12, 16000.0, 4096, 4),    # K2 / K5's GCC on the passes
+    ("srp", False, 64, 16000.0, 65536, 2),  # K1 on the spectra, split
+    ("lm", False, 12, 16000.0, 4096, 4),    # K2 / K5's GCC on the spectra
 )
 # (fs, transform) of the single pairs: one block, the split, 2^20 (the
 # longest split of strips of 16), and 2^21 and 2^22, where K4a's and K9's
@@ -138,10 +140,22 @@ def _stage(n1: int) -> str:
     return {0: "passes", 1: "block"}.get(n1, f"split {n1}")
 
 
+def _gcc_stage(route) -> str:
+    """A GCC route's label: "block", "split n1" (``gcc_rows``), "spectra
+    n1", "spectra block" or "passes"."""
+    from pyaudiolocalization_tpu_torch.ops import cuda_fft as cf
+    if route.kind == cf.ROUTE_ROWS:
+        return f"split {route.n1}"
+    if route.kind == cf.ROUTE_SPECTRA:
+        return f"spectra {route.n1}"
+    return cf.ROUTE_NAMES[route.kind]
+
+
 def route(cfg: dict) -> Dict[str, tuple]:
     """{kernel: (nfft, n1, ..., schedule)} that ``cfg`` launches on the
     card, by the wrappers' own schedule rules (``cuda_fft.scene_stages``,
-    ``gcc_schedule``, ``_split_n1``, ``corr_schedule``)."""
+    ``gcc_route``, ``_split_n1``, ``corr_schedule``); the GCCs' tuples
+    hold their route's kind after n1."""
     from pyaudiolocalization_tpu_torch.ops import cuda_fft as cf
     from pyaudiolocalization_tpu_torch.ops.fftutils import next_pow2
     from pyaudiolocalization_tpu_torch.parallel import sweep as tsw
@@ -155,15 +169,16 @@ def route(cfg: dict) -> Dict[str, tuple]:
     render = next_pow2(spec.total_samples)
     r1 = cf.scene_stages(render, m)[0]
     out = {"delay_sum": (render, r1, _stage(r1))}
+    gcc = cf.gcc_route(nfft, m)
     if tsw._use_windowed(spec):
-        n1r, n1g = cf.scene_stages(nfft, m)
-        out["gcc_windowed"] = (nfft, n1g, _stage(n1g))
+        n1r = cf.scene_stages(nfft, m)[0]
+        out["gcc_windowed"] = (nfft, gcc.n1, gcc.kind, _gcc_stage(gcc))
         if tsw._mono_scene_eligible(spec):
-            out["scene_windowed"] = (nfft, n1r, n1g,
-                                     f"fused {_stage(n1r)}/{_stage(n1g)}")
+            out["scene_windowed"] = (
+                nfft, n1r, gcc.n1, gcc.kind,
+                f"fused {_stage(n1r)}/{_gcc_stage(gcc)}")
     else:
-        n1 = cf.gcc_schedule(nfft, m)
-        out["gcc_all_pairs"] = (nfft, n1, _stage(n1))
+        out["gcc_all_pairs"] = (nfft, gcc.n1, gcc.kind, _gcc_stage(gcc))
     return out
 
 

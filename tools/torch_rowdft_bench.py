@@ -40,17 +40,21 @@ chunks' shapes (``SCENE_SHAPES``), each case held against its twin, by
 CUDA events beside the twin's time and in device time by kernel, with its
 bound.  ``gcc`` (``--gcc``) times K1 at the api's, no_gate's,
 ``bench_gcc_phat``'s, the reverberant sweep's, the multi-source cube's,
-an odd edge's, a passes shape and K2's one-block shapes (``GCC_SHAPES``)
-and K9 at the single pair's lengths and an edge (``CORR_SHAPES``), each
-held against its twin, by CUDA events and in device time by kernel,
-beside the twin's times (cuFFT).  ``--long`` times only K4a, K4b, K6,
-K1 and K9 at their shapes above 2^20 (two rows of a 23.7 s pair at 2^21
-and one row at 2^22 against ``torch.fft.rfft``; the pair's null at 64
-and 1,000 draws and one row at 2^22; K1 at the 23.7 s recording's 4 and
-8 mics at 2^21 and 4 mics at 2^22, K9 at one pair of each), and
-``--recording`` runs chip_smoke.py's 4 x 24 s recording (phase 10,
-``long_recording``) from this tree at 2^21 and 2^22: its wall time cold
-and warm and its device time by kernel.  ``--trace`` (alone)
+an odd edge's, K2's one-block shapes and the GCC's spectra routes'
+shapes (``GCC_SHAPES``) and K9 at the single pair's lengths and an edge
+(``CORR_SHAPES``), each held against its twin, by CUDA events and in
+device time by kernel, beside the twin's times (cuFFT).  ``--long``
+times only K4a, K4b, K6, K1 and K9 at their shapes above 2^20 (two rows
+of a 23.7 s pair at 2^21 and one row at 2^22 against ``torch.fft.rfft``;
+the pair's null at 64 and 1,000 draws and one row at 2^22; K1 at the
+23.7 s recording's 4 and 8 mics at 2^21 and 4 mics at 2^22, K9 at one
+pair of each); ``--gcc --long`` times only K1 (``ROUTE_GCC``) and K2,
+K3 and K5 (``ROUTE_SCENES``) at the shapes where the GCC goes through
+the mic rows' spectra; ``--recording`` runs chip_smoke.py's 4 x 24 s
+recording (phase 10, ``long_recording``) from this tree at 2^21 and 2^22
+and its recordings of the spectra routes (``spectra_recordings``, 2^20
+to 2^22): their wall time cold and warm and their device time by
+kernel.  ``--trace`` (alone)
 counts the ``device_ms`` traces that miss a kernel, with and without
 their idle edges (``trace_check``).  ``k10``
 (``--k10``, alone) times K10a (``row_dft``), K10b (``row_stages``) and
@@ -175,14 +179,31 @@ GCC_SHAPES = {"api": (None, 4, 44100, 65536, BAND),
               "reverb": (512, 4, 4000, 4096, BAND),
               "multi": (128, 8, 4000, 4096, BAND),
               "edge": (5, 3, 1500, 2048, BAND),
-              "passes": (None, 11, 44100, 65536, BAND),
+              "mics11": (None, 11, 44100, 65536, BAND),
               "trio": (512, 8, 4000, 4096, BAND),
               "moving": (132, 4, 788, 1024, None),
               "short": (512, 4, 1600, 2048, BAND),
               "chunks": (21846, 4, 400, 512, BAND),
               "long": (None, 4, LONG, 1 << 21, BAND),
               "long8": (None, 8, LONG, 1 << 21, BAND),
-              "long22": (None, 4, 2000000, 1 << 22, None)}
+              "long22": (None, 4, 2000000, 1 << 22, None),
+              "spectra20": (None, 4, 800000, 1 << 20, BAND),
+              "spectra18": (None, 8, 200000, 1 << 18, BAND),
+              "spectra_block": (128, 16, 4000, 4096, BAND)}
+# --gcc --long: the shapes where K1's, K2's and K5's GCC goes through the
+# mic rows' spectra (``cuda_fft.gcc_route``; before, the radix-2 passes):
+# K1 at 11 mics x 65,536, 8 mics x 2^18, 4 mics of an 18 s recording at
+# 2^20, 128 x 16 mics at 4,096 and its shapes above 2^20 (GCC_SHAPES);
+# K2 (with K3 and K5 beside it, ``SCENE_SHAPES``' layout) at the fast
+# path's 4 mics at 2^20, 2^21 and 2^22, 512 x 12 mics at 4,096 and one
+# scene of 6 mics at 2^18.
+ROUTE_GCC = ("mics11", "spectra18", "spectra20", "spectra_block", "long",
+             "long8", "long22")
+ROUTE_SCENES = {"fast20": (1, 4, 1, 900000, 800000, 1 << 20, 21, True),
+                "fast21": (1, 4, 1, 1600000, 1500000, 1 << 21, 21, True),
+                "fast22": (1, 4, 1, 3100000, 3000000, 1 << 22, 21, True),
+                "spectra_block": (512, 12, 1, 4094, 4000, 4096, 2, True),
+                "spectra18": (1, 6, 1, 250000, 200000, 1 << 18, 8, True)}
 CORR_SHAPES = {"main": (1, 44100, 65536), "no_gate": (1, 44100, 131072),
                "edge": (3, 3000, 4096), "long": (1, LONG, 1 << 21),
                "long22": (1, 2000000, 1 << 22)}
@@ -533,12 +554,14 @@ def scene_inputs(gen, scenes, mics, paths, total, out):
             fade.contiguous())
 
 
-def scene(reps: int = 5, log=print) -> dict:
+def scene(reps: int = 5, log=print, shapes=None) -> dict:
     """K5 (``scene_windowed``), K3 (``delay_sum`` with finalize and noise,
     or neither where the shape's finish is False) and K2 (``gcc_windowed``
-    on K3's signals) at ``SCENE_SHAPES``, each held against its twin within
-    ``SCENE_TOL`` (a render without the finalize relative to its peak; K2
-    at "chunks" against its float64 run within ``CHUNKS_TOL``):
+    on K3's signals) at ``shapes`` (``SCENE_SHAPES`` by default), each
+    held against its twin within ``SCENE_TOL`` (a render without the
+    finalize relative to its peak; K2 at "chunks" against its float64 run
+    within ``CHUNKS_TOL``, above 2^20 within ``SCENE_TOL`` plus the float32
+    twin's distance from its float64 run):
     CUDA-event ms per call, the twin's beside it, device ms per call by
     kernel and the bound (chip_smoke.py's ``scene_bound``).  Logs one line
     per kernel and shape and returns {(name, shape): {"ms", "plain_ms",
@@ -547,8 +570,8 @@ def scene(reps: int = 5, log=print) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
-    for shape, (scenes, mics, paths, total, n, nfft, wq, finish) in \
-            SCENE_SHAPES.items():
+    for shape, (scenes, mics, paths, total, n, nfft, wq, finish) in (
+            shapes or SCENE_SHAPES).items():
         base, tau, gains, snr, seeds, fade = scene_inputs(
             gen, scenes, mics, paths, total, n)
         pairs = [(i, j) for i in range(mics) for j in range(i + 1, mics)]
@@ -586,10 +609,19 @@ def scene(reps: int = 5, log=print) -> dict:
                 if not exact_err <= CHUNKS_TOL:
                     raise AssertionError(f"{name} {shape}: max |kernel - "
                                          f"float64 twin| = {exact_err:.3e}")
-            elif not err <= SCENE_TOL[name] * (1.0 if finish else max(
-                    float(want.abs().max()), 1.0)):
-                raise AssertionError(f"{name} {shape}: max |kernel - plain| "
-                                     f"= {err:.3e}")
+            else:
+                tol = SCENE_TOL[name] * (1.0 if finish else max(
+                    float(want.abs().max()), 1.0))
+                if name == "gcc_windowed" and nfft > cf.STAGE_SPLIT_MAX:
+                    gap = float((want.double() - cf.gcc_windowed_plain(
+                        sigs.double(), pi, pj, nfft, wq,
+                        mask.double())[0]).abs().max())
+                    tol += gap
+                    log(f"{name} [{shape}]: max |float32 twin - float64 "
+                        f"twin| {gap:.3e}, limit {tol:.3e}")
+                if not err <= tol:
+                    raise AssertionError(f"{name} {shape}: max |kernel - "
+                                         f"plain| = {err:.3e}")
             del got, want
             res = {"ms": ms, "plain_ms": plain_ms,
                    "device": device_ms(call, 3),
@@ -608,12 +640,14 @@ def scene(reps: int = 5, log=print) -> dict:
     return out
 
 
-def gcc(reps: int = 5, log=print, min_nfft: int = 0) -> dict:
+def gcc(reps: int = 5, log=print, min_nfft: int = 0,
+        names=None) -> dict:
     """K1 (``gcc_all_pairs``) at ``GCC_SHAPES`` and K9 (``whitened_corr``)
-    at ``CORR_SHAPES`` (those from ``min_nfft`` on), each held against its
-    twin within ``GCC_TOL`` (K1 at "chunks" against its float64 run within
-    ``CHUNKS_TOL``; above 2^20 within ``GCC_TOL`` plus the float32 twin's
-    distance from its float64 run): CUDA-event ms per call (median of
+    at ``CORR_SHAPES`` (those from ``min_nfft`` on; with ``names``, K1 at
+    those shapes alone), each held against its twin within ``GCC_TOL``
+    (K1 at "chunks" against its float64 run within ``CHUNKS_TOL``; from
+    2^20 within ``GCC_TOL`` plus the float32 twin's distance from its
+    float64 run): CUDA-event ms per call (median of
     three loops) and device ms per call by kernel, the kernel's and the
     twin's.  Logs one line per case and returns {(name, shape): {"ms",
     "device", "plain_ms", "plain_device"}}."""
@@ -623,7 +657,7 @@ def gcc(reps: int = 5, log=print, min_nfft: int = 0) -> dict:
     exact = {}  # the twin in float64 at "chunks"
     wide = {}   # the twin in float64 above 2^20
     for shape, (scenes, mics, n, nfft, band) in GCC_SHAPES.items():
-        if nfft < min_nfft:
+        if nfft < min_nfft or (names is not None and shape not in names):
             continue
         sig = torch.randn((mics, n) if scenes is None else (scenes, mics, n),
                           generator=gen, device=dev)
@@ -641,10 +675,10 @@ def gcc(reps: int = 5, log=print, min_nfft: int = 0) -> dict:
                                          mask.double()))
         if shape == "chunks":
             exact[("gcc_all_pairs", shape)] = double
-        elif nfft > cf.STAGE_SPLIT_MAX:
+        elif nfft >= cf.STAGE_SPLIT_MAX:
             wide[("gcc_all_pairs", shape)] = double
     for shape, (rows, n, nfft) in CORR_SHAPES.items():
-        if nfft < min_nfft:
+        if nfft < min_nfft or names is not None:
             continue
         spec = cf.fft_real_plain(torch.randn((2 * rows, n), generator=gen,
                                              device=dev), nfft)
@@ -842,8 +876,10 @@ def recording(card: str) -> None:
     """``chip_smoke.long_recording`` of this tree (the 4 x 24 s recording
     written, read back and localized with the noise null at nfft 2^21 and,
     under ``max_expected_delay=None``, 2^22, a warm call each, the device
-    time by kernel), logged beside ``card``.  A tree whose K1 still runs
-    its radix-2 passes there logs them (``hold_split=False``)."""
+    time by kernel) and ``spectra_recordings`` (16 s on the full core at
+    2^20; 16, 30 and 60 s on the fast path at 2^20 to 2^22), logged beside
+    ``card``.  A tree whose K1 or K2 still runs its radix-2 passes there
+    logs them (``hold_split=False``, ``hold_spectra=False``)."""
     import importlib.util
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   REPO / "chip_smoke.py")
@@ -851,6 +887,7 @@ def recording(card: str) -> None:
     spec.loader.exec_module(smoke)
     smoke.CARD[0] = card
     smoke.long_recording(cf, torch, {}, hold_split=False)
+    smoke.spectra_recordings(cf, torch, {}, hold_spectra=False)
 
 
 def main() -> int:
@@ -873,7 +910,9 @@ def main() -> int:
     ap.add_argument("--long", action="store_true",
                     help="time only K4a, K4b, K6, K1 and K9 at their "
                          "shapes above 2^20 (the split's strips of 8 "
-                         "columns)")
+                         "columns); with --gcc, K1, K2 and K5 at the "
+                         "shapes of their GCC through the mic rows' "
+                         "spectra")
     ap.add_argument("--recording", action="store_true",
                     help="localize chip_smoke.py's 4 x 24 s recording "
                          "(phase 10) cold and warm, with its device time "
@@ -904,7 +943,10 @@ def main() -> int:
     cf.build()
 
     if args.long or args.recording:
-        if args.long:
+        if args.long and args.gcc:
+            gcc(args.reps, log, names=ROUTE_GCC)
+            scene(args.reps, log, ROUTE_SCENES)
+        elif args.long:
             k4a(4 * args.reps, log, LONG_MIN)
             boot(2 * args.reps, log, LONG_MIN)
             k6(2 * args.reps, log, LONG_MIN)
