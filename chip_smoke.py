@@ -44,7 +44,13 @@ in twelve phases:
    pass over pairs of them, the column pass), and through them in one
    block K1 at 128 x 16 mics and K2 and K5 at 512 x 12 mics at 4,096 (2
    device kernels, K5 3; K5 also at 6 mics x 2^18, 8; K5 bit-equal to K3
-   then K2 on both), and K9 at one pair of each length, 2, each above
+   then K2 on both); K3 through the base rows' spectra at the fast path's
+   one scene of 4 mics at 2^20, 2^21 and 2^22, 2 scenes x 3 mics x 3
+   paths at 2^21 (8 device kernels a call: K4a's two passes,
+   ``render_spec_rows``, ``render_cols``, 4 steps of the finish spread
+   over the card) and 64 scenes x 4 mics at 2^20 (5: one
+   ``render_finalize``), and K5 at the fast path's three (12, bit-equal
+   to K3 then K2); and K9 at one pair of each length, 2, each above
    2^20 (K1 from 2^20) held to its float32 twin within the limit plus the
    twin's own distance from its float64 run, measured in the same run;
    phase 11's shapes: K1 over segments x subframes, K3 over the moving
@@ -65,7 +71,11 @@ in twelve phases:
    warm, held against ``tests/data/torch_slice_golden.json`` (TDOAs within
    0.05 samples, position within 5 mm, ``significant`` equal); then the
    demo scene with ``analyze_correlation=False``, which takes the windowed
-   fast path, held against ``tests/data/torch_sweep_golden.json``;
+   fast path, held against ``tests/data/torch_sweep_golden.json``; then
+   the off-centre scene at 20 s and 60 s on the fast path (K3 at 2^20
+   and 2^22 through the base rows' spectra, K2 through the mic rows'),
+   cold and warm, with the device time by kernel (no radix-2 pass of K3
+   or K2) and the TDOAs within 0.05 samples of the port's on the CPU;
 4b. the options path of ``localize_sound_source``, cold and warm: both
    scenes with the noise-null bootstrap (K6, no permutation) against the
    slice golden, with the noise and permutation nulls of one pair held
@@ -306,7 +316,11 @@ ADDED = {("delay_sum", "odd"): 1, ("gcc_windowed", "odd"): 1,
          ("gcc_windowed", "fast22"): 10,
          ("gcc_windowed", "spectra_block"): 10,
          ("scene_windowed", "spectra_block"): 10,
-         ("scene_windowed", "spectra18"): 10}
+         ("scene_windowed", "spectra18"): 10, ("delay_sum", "fast20"): 11,
+         ("delay_sum", "fast21"): 11, ("delay_sum", "fast22"): 11,
+         ("delay_sum", "odd21"): 11, ("delay_sum", "scenes20"): 11,
+         ("scene_windowed", "fast20"): 11, ("scene_windowed", "fast21"): 11,
+         ("scene_windowed", "fast22"): 11}
 # The sweep across K2's, K3's and K5's scene-chunk boundary: one scene past
 # the 65,535 grid rows of one launch at 4 mics (3 couples), at nfft 512.
 CHUNK_SCENES = 21846
@@ -334,8 +348,18 @@ CARD = ["not read"]
 ONE_BLOCK_KERNELS = {"trio": 1, "short": 1, "chunks": 2}
 # Device kernels a call of K5 runs at phase 3's spectra-route shapes: at
 # 4,096 ``render_block``, ``fft_real_block``, ``corr_block``; at 2^18 the
-# render's split (3) and finalize, then the GCC's four.
-SPECTRA_K5_KERNELS = {"spectra_block": 3, "spectra18": 8}
+# render's split (3) and finalize, then the GCC's four; at the fast path's
+# 2^20 to 2^22 the render through the base rows' spectra (4), the finish
+# spread over the card (``finish_spread``, 4 steps), then the GCC's four.
+SPECTRA_K5_KERNELS = {"spectra_block": 3, "spectra18": 8, "fast20": 12,
+                      "fast21": 12, "fast22": 12}
+# Device kernels a call of K3 runs through the base rows' spectra with
+# the finalize and the noise: K4a's two passes, ``render_spec_rows``,
+# ``render_cols``, then the finish, 4 steps of ``finish_spread`` where a
+# call's rows leave the card idle (one scene), else one
+# ``render_finalize`` (64 scenes).
+RENDER_SPECTRA_KERNELS = {"fast20": 8, "fast21": 8, "fast22": 8,
+                          "odd21": 8, "scenes20": 5}
 
 # name -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -568,7 +592,16 @@ def kernel_phase(cf, torch):
                      trio.num_samples, next_pow2(trio.total_samples), True,
                      True),
             "short": (SWEEP_SCENES, 4, 1, short.total_samples,
-                      short.num_samples, short.nfft, True, True)}.items():
+                      short.num_samples, short.nfft, True, True),
+            "fast20": (1, 4, 1, 900000, FAST_SAMPLES[1 << 20], 1 << 20,
+                       True, True),
+            "fast21": (1, 4, 1, 1600000, FAST_SAMPLES[1 << 21], 1 << 21,
+                       True, True),
+            "fast22": (1, 4, 1, 3100000, FAST_SAMPLES[1 << 22], 1 << 22,
+                       True, True),
+            "odd21": (2, 3, 3, 1600000, 1500000, 1 << 21, True, True),
+            "scenes20": (64, 4, 1, 900000, FAST_SAMPLES[1 << 20], 1 << 20,
+                         True, True)}.items():
         draw("delay_sum", tag)
         base, tau, gains, snr, seeds, fade = scene_inputs(b, m, paths,
                                                           total, out)
@@ -583,11 +616,13 @@ def kernel_phase(cf, torch):
             tol=2e-5, reps=3 if b > 1 else 20, scale_by_max=not fin,
             least=scene_bound("delay_sum", b, m, paths, total, out, nfft,
                               None, noise))
-        if tag in ("main", "scene", "reverb", "trio", "short", "chunks"):
-            log_device(f"delay_sum[{tag}]",
+        if tag in ("main", "scene", "reverb", "trio", "short",
+                   "chunks") or tag in RENDER_SPECTRA_KERNELS:
+            log_device(f"delay_sum[{tag}] ({render_note(cf, nfft, b * m)})",
                        lambda: cf.delay_sum(base, tau, gains, nfft, out,
                                             fade, fin, *nz),
-                       kernels=ONE_BLOCK_KERNELS.get(tag))
+                       kernels=ONE_BLOCK_KERNELS.get(tag)
+                       or RENDER_SPECTRA_KERNELS.get(tag))
         if tag == "chunks":
             per_call(cf, "delay_sum", lambda: cf.delay_sum(
                 base, tau, gains, nfft, out, fade, fin, *nz), 2)
@@ -885,7 +920,7 @@ def kernel_phase(cf, torch):
                 tol=1e-6, reps=20,
                 least=bound(nbytes, gcc_ops(scenes, m, len(pi), nfft)))
         log_device(f"gcc_all_pairs[{tag}] (schedule n1="
-                   f"{cf.gcc_schedule(nfft, m)})",
+                   f"{cf.gcc_route(nfft, m).n1})",
                    lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
                    kernels=1)
     mv = serving.MOVING
@@ -1001,7 +1036,11 @@ def kernel_phase(cf, torch):
             "short": (SWEEP_SCENES, 4, 1, short.total_samples,
                       short.num_samples, short.nfft, short_wq),
             "spectra_block": (SWEEP_SCENES, 12, 1, 4094, 4000, 4096, 2),
-            "spectra18": (1, 6, 1, 250000, 200000, 1 << 18, 8)}.items():
+            "spectra18": (1, 6, 1, 250000, 200000, 1 << 18, 8),
+            "fast20": (1, 4, 1, 900000, FAST_SAMPLES[1 << 20], 1 << 20, 21),
+            "fast21": (1, 4, 1, 1600000, FAST_SAMPLES[1 << 21], 1 << 21, 21),
+            "fast22": (1, 4, 1, 3100000, FAST_SAMPLES[1 << 22], 1 << 22,
+                       21)}.items():
         draw("scene_windowed", tag)
         pi, pj = pairs(m)
         base, tau, gains, snr, seeds, fade = scene_inputs(b, m, paths,
@@ -1028,7 +1067,7 @@ def kernel_phase(cf, torch):
         if gap > 1e-6:
             raise AssertionError(f"scene_windowed[{tag}] departs from the "
                                  f"split kernels by {gap:.3e}")
-        if tag in ("chunks", "short", "spectra_block", "spectra18"):
+        if tag in ("chunks", "short") or tag in SPECTRA_K5_KERNELS:
             if not all(torch.equal(a, c) for a, c in zip(fused, split)):
                 raise AssertionError(f"scene_windowed[{tag}] is not "
                                      "bit-equal to delay_sum -> gcc_windowed")
@@ -1038,9 +1077,10 @@ def kernel_phase(cf, torch):
             per_call(cf, "scene_windowed", lambda: cf.scene_windowed(
                 base, tau, gains, pi, pj, nfft, out, wq, fade, mask, snr,
                 seeds), 2)
-        if tag in ("main", "api", "short", "chunks", "spectra_block",
-                   "spectra18"):
-            log_device(f"scene_windowed[{tag}] ({route_note(cf, nfft, m)})",
+        if tag in ("main", "api", "short", "chunks") or (
+                tag in SPECTRA_K5_KERNELS):
+            log_device(f"scene_windowed[{tag}] ({route_note(cf, nfft, m)}; "
+                       f"{render_note(cf, nfft, b * m)})",
                        lambda: cf.scene_windowed(base, tau, gains, pi, pj,
                                                  nfft, out, wq, fade, mask,
                                                  snr, seeds), 3,
@@ -1067,13 +1107,22 @@ def gcc_kernels(cf, nfft, mics):
 
 
 def route_note(cf, nfft, mics):
-    """'route <name>, n1=<n1>' of K1's and K2's GCC at nfft and ``mics``
-    ('n1=<n1>' from a tree without ``gcc_route``, for the A/B tool's
-    ``--recording``)."""
-    if not hasattr(cf, "gcc_route"):
-        return f"n1={cf.gcc_schedule(nfft, mics)}"
+    """'route <name>, n1=<n1>' of K1's and K2's GCC at nfft and ``mics``."""
     route = cf.gcc_route(nfft, mics)
     return f"route {cf.ROUTE_NAMES[route.kind]}, n1={route.n1}"
+
+
+def render_note(cf, nfft, rows):
+    """'render <name>, n1=<n1>, finish <groups>' of K3's render (K5's) at
+    nfft for a call of ``rows`` mic rows: its route and the finish's
+    blocks a packed mic row (``cuda_fft.finish_groups``); 'render
+    n1=<n1>' from a tree without them, for the A/B tool's
+    ``--recording``."""
+    if not hasattr(cf, "render_route"):
+        return f"render n1={cf.scene_stages(nfft, 1)[0]}"
+    route = cf.render_route(nfft)
+    return (f"render {cf.ROUTE_NAMES[route.kind]}, n1={route.n1}, finish "
+            f"{cf.finish_groups(nfft, rows)}")
 
 
 def per_call(cf, name, fn, want):
@@ -1279,6 +1328,74 @@ def main_path_phase(cf, torch, slice_golden, sweep_golden, launches):
                          ("delay_sum", "gcc_windowed"),
                          ("gcc_all_pairs", "bootstrap_peaks"))
     _add(launches, counts)
+    long_scenes(cf, torch, launches)
+
+
+# The long simulated scenes of phase 4 (seconds, the nfft of K3's render
+# and of K2's GCC there) and the kernels of K3's radix-2 render, which
+# none of them may run.
+LONG_SCENES = ((20, 1 << 20), (60, 1 << 22))
+K3_PASS_KERNELS = ("pack_rows", "stockham_pass", "render_mix")
+
+
+def long_scenes(cf, torch, launches, hold_spectra=True):
+    """Phase 4's long simulated scenes: the off-centre chirp scene at 20 s
+    and 60 s through the api's windowed fast path
+    (``analyze_correlation=False``): K3 renders at 2^20 and 2^22 through
+    the base rows' spectra, its finish spread over the card, and K2's GCC
+    goes through the mic rows' spectra.  For each, a cold and a warm
+    call's wall time and one more call's device time by kernel, which
+    holds no kernel of K3's or K2's radix-2 passes (``hold_spectra`` False
+    only logs them, for an A/B against a tree that runs them); the TDOAs
+    within 0.05 samples of the same scene through the port on the CPU
+    (float32, the kernels' plain twins)."""
+    from pyaudiolocalization_tpu_torch import DEFAULT_CONFIG
+    from pyaudiolocalization_tpu_torch import localize_sound_source
+    bench = _load_tool("torch_rowdft_bench")
+    for seconds, nfft in LONG_SCENES:
+        cfg = scene_configs(DEFAULT_CONFIG)["off_centre"]
+        cfg["duration"] = float(seconds)
+        cfg["localization"].update(analyze_correlation=False,
+                                   visualize_correlation=False)
+        name = (f"the {seconds} s simulated scene (fast path, nfft {nfft}; "
+                f"{render_note(cf, nfft, 4)}; GCC {route_note(cf, nfft, 4)})")
+
+        def run():
+            return _wall(torch, lambda: localize_sound_source(
+                cfg, device="cuda", dtype=torch.float32))
+
+        (_, cold), counts = run_path(
+            cf, name, run, ("delay_sum", "gcc_windowed"),
+            ("gcc_all_pairs", "bootstrap_peaks", "scene_windowed"))
+        _add(launches, counts)
+        (res, warm), counts = run_path(cf, f"{name}, warm", run,
+                                       ("delay_sum", "gcc_windowed"))
+        _add(launches, counts)
+        dev = bench.device_ms(run, 1)
+        log(f"{name}: cold {cold:.3f} s, warm {warm:.3f} s wall; device "
+            f"time a call {dev['total']:.3f} ms in {dev['kernels']:g} "
+            "kernels, by kernel: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in sorted(
+                    dev.items(), key=lambda kv: -kv[1])
+                if k not in ("total", "kernels")) + f" {card_note()}")
+        passes = [k for k in dev
+                  if any(p in k for p in K3_PASS_KERNELS + K2_PASS_KERNELS)]
+        log(f"{name}: K3's and K2's radix-2 pass kernels in the trace: "
+            f"{passes or 'none'}")
+        if hold_spectra and (passes or "render_spec_rows" not in dev):
+            raise AssertionError(f"{name}: K3 or K2 ran the radix-2 passes "
+                                 f"{passes}, or no render_spec_rows")
+        cpu, cpu_s = _wall(torch, lambda: localize_sound_source(
+            cfg, device="cpu", dtype=torch.float32))
+        got = [float(t) * FS for t in res["tdoas"]]
+        want = [float(t) * FS for t in cpu["tdoas"]]
+        err = max(abs(a - b) for a, b in zip(got, want))
+        log(f"{name}: TDOAs {[round(v, 4) for v in got]} samples on the "
+            f"card, {[round(v, 4) for v in want]} on the CPU ({cpu_s:.1f} "
+            f"s), max |diff| {err:.4f} samples")
+        if not err <= 0.05 or not all(map(math.isfinite, got)):
+            raise AssertionError(f"{name}: the TDOAs depart from the CPU's "
+                                 f"by {err:.4f} samples")
 
 
 # ---------------------------------------------------------------------------
@@ -2935,7 +3052,7 @@ def long_recording(cf, torch, launches, hold_split=True):
         nfft = api._physical_nfft(length, FS, med)
         name = f"the 24 s recording (noise null, max_expected_delay={med})"
         log(f"{name}: nfft {nfft}, K1's schedule n1="
-            f"{cf.gcc_schedule(nfft, 4)}")
+            f"{cf.gcc_route(nfft, 4).n1}")
         if length < LONG_SAMPLES or nfft != nfft_want:
             raise AssertionError(f"{name} misses nfft {nfft_want}")
         cfg = scene_configs(DEFAULT_CONFIG)["default"]

@@ -11,9 +11,9 @@
 //    shared memory a block can hold, so every pass streams the rows
 //    through device memory (and the 50 MB L2): 16 bytes per point per
 //    pass, about 16 * log2(n) bytes per point and transform, and one
-//    launch per pass.  K3 runs on it where its strips do not fit (from
-//    2^20), and K1, K2, K4a, K4b, K5's GCC stage, K6 and K9 above 2^22;
-//    they fuse their first or last pass into a prologue or epilogue.
+//    launch per pass.  K1, K2, K3, K4a, K4b, K5, K6 and K9 run on it
+//    above 2^22; they fuse their first or last pass into a prologue or
+//    epilogue.
 //
 // 2. On-chip sub-transforms (`block_fft`): one block transforms S
 //    sequences of length L (L * S <= kElems * 1024) held in shared memory,
@@ -31,9 +31,11 @@
 //    back in three, the middle one holding the rows for both directions;
 //    K9 runs the back half in two, and K1's, K2's and K5's GCC, where
 //    their row pass's strips of every mic row do not fit, K4a's two and
-//    K9's two, through the mic rows' spectra; up to 1024 x 1024 with
-//    strips of kStrip sequences, and for K1, K2's GCC, K4a, K4b, K6 and K9
-//    up to 2048 x 2048 with strips of 8 where 16 would pass kElems * 1024
+//    K9's two, through the mic rows' spectra; K3's render, where its two
+//    strips do not fit, K4a's two into the base rows' spectra, a one-strip
+//    mix row pass and the column pass; up to 1024 x 1024 with strips of
+//    kStrip sequences, and for K1, K2, K3, K4a, K4b, K5, K6 and K9 up to
+//    2048 x 2048 with strips of 8 where 16 would pass kElems * 1024
 //    points); the length-n2
 //    rows of a (n2, 128) plane are one (K10b, and K10a with its radix-16
 //    stages on the tensor cores), and so are the 128-point lane DFTs of 32

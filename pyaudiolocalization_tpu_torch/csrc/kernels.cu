@@ -39,6 +39,9 @@ constexpr int kRowThreads = 1024;
 // (nfft, mics), the same for the three): the radix-2 passes (above 2^22),
 // one block a scene, the split with `gcc_rows`, the split through the mic
 // rows' spectra, and one block a packed cross row through the spectra.
+// K3's render stage, K5's too, takes the first four (``cuda_fft.
+// render_route``): the passes, `render_block`, the split with
+// `render_rows`, the split through the base rows' spectra.
 enum GccRoute {
   kRoutePasses = 0,
   kRouteBlock = 1,
@@ -1341,6 +1344,8 @@ __device__ __forceinline__ void finish_rows(float* o, int stride, int out_len,
 // (unscaled): scale, fade and trim, then `finish_rows`.  With packed_out
 // the row is written in place into the packed buffer (the forward input of
 // K5's GCC stage), zero-padded to n; otherwise to out (rows, out_len).
+// Where the rows are too few to fill the card, `finish_spread` does the
+// same over more blocks (``cuda_fft.finish_groups``).
 __global__ void render_finalize(float2* z, int n, int mics, int out_len,
                                 const float* __restrict__ fade, float scale,
                                 int finalize, const float* __restrict__ snr_db,
@@ -1377,18 +1382,166 @@ __global__ void render_finalize(float2* z, int n, int mics, int out_len,
               mic, shared);
 }
 
+// `render_finalize`'s finish spread over G = gridDim.x blocks a packed
+// mic row, for calls whose rows are too few to fill the card (from 2^20,
+// ``cuda_fft.finish_groups``): one block a mic row would leave most SMs
+// idle for milliseconds at a few million samples a row.  Grid (G, packed
+// rows c), one launch a step; block g takes samples t = g * blockDim.x +
+// threadIdx.x + k * G * blockDim.x of both mic rows 2c and 2c + 1 and
+// revisits only those.  Each step reduces its block's values of the two
+// rows (`block_reduce`) into part (rows, 3, G) = [peak, compressed peak,
+// sum of squares] of each block, and the next step combines a row's G
+// partials in block order: the maxima are exact in any order, the sums
+// are taken in that order, so nothing depends on the order in which the
+// blocks run and no float atomics are needed.  The samples' arithmetic is
+// `finish_rows`'.
+//   step 0: scale, fade and trim (to out, or in place zero-padded to n
+//           where packed_out), the peaks and sums of squares;
+//   step 1: (finalize) peak-normalize and compress, the compressed peaks;
+//   step 2: (finalize) re-normalize, the sums of squares;
+//   step 3: (noise) sigma from the sums, plus the Philox normals.
+__global__ void __launch_bounds__(1024)
+finish_spread(float2* z, int rows, int n, int mics, int out_len,
+              const float* __restrict__ fade, float scale,
+              const float* __restrict__ snr_db, const int* __restrict__ seeds,
+              float* out, int packed_out, int step, float* part) {
+  __shared__ float red[64];
+  const int groups = gridDim.x;
+  const int g = blockIdx.x;
+  const int c = blockIdx.y;
+  const int ra = 2 * c;
+  const bool two = ra + 1 < rows;
+  float2* zc = z + (size_t)c * (size_t)n;
+  float* oa = packed_out ? nullptr : out + (size_t)ra * (size_t)out_len;
+  float* pa = part + (size_t)ra * 3 * groups;
+  float* pb = pa + 3 * groups;
+  const int first = g * blockDim.x + threadIdx.x;
+  const int stride = groups * blockDim.x;
+  auto get = [&](int t) {
+    if (packed_out) return zc[t];
+    return make_float2(oa[t], two ? oa[out_len + t] : 0.0f);
+  };
+  auto put = [&](int t, float2 v) {
+    if (packed_out) {
+      zc[t] = v;
+      return;
+    }
+    oa[t] = v.x;
+    if (two) oa[out_len + t] = v.y;
+  };
+  // The combined partial k (0 peak, 1 compressed peak, 2 sum of squares)
+  // of the block's two rows.
+  auto combined = [&](int k, float (&v)[2]) {
+    v[0] = 0.0f;
+    v[1] = 0.0f;
+    for (int i = 0; i < groups; ++i) {
+      const float a = pa[k * groups + i];
+      const float b = two ? pb[k * groups + i] : 0.0f;
+      v[0] = k == 2 ? v[0] + a : fmaxf(v[0], a);
+      v[1] = k == 2 ? v[1] + b : fmaxf(v[1], b);
+    }
+  };
+  float acc[2] = {0.0f, 0.0f};
+  float ss[2] = {0.0f, 0.0f};
+  int k = 0;
+  if (step == 0) {
+    const int end = packed_out ? n : out_len;
+    for (int t = first; t < end; t += stride) {
+      if (t >= out_len) {
+        zc[t] = make_float2(0.0f, 0.0f);
+        continue;
+      }
+      const float2 v = zc[t];
+      const float f = fade[t];
+      const float2 y =
+          make_float2(v.x * scale * f, two ? v.y * scale * f : 0.0f);
+      put(t, y);
+      acc[0] = fmaxf(acc[0], fabsf(y.x));
+      acc[1] = fmaxf(acc[1], fabsf(y.y));
+      ss[0] += y.x * y.x;
+      ss[1] += y.y * y.y;
+    }
+  } else if (step == 1) {
+    float peak[2];
+    combined(0, peak);
+    for (int t = first; t < out_len; t += stride) {
+      const float2 v = get(t);
+      float y[2] = {v.x, v.y};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (peak[h] != 0.0f) y[h] = y[h] / peak[h];
+        const float sgn = (y[h] > 0.0f) - (y[h] < 0.0f);
+        y[h] = sgn * log1pf(fabsf(y[h]) / 0.8f + 1e-8f);
+        acc[h] = fmaxf(acc[h], fabsf(y[h]));
+      }
+      put(t, make_float2(y[0], y[1]));
+    }
+    k = 1;
+  } else if (step == 2) {
+    float cpeak[2];
+    combined(1, cpeak);
+    for (int t = first; t < out_len; t += stride) {
+      const float2 v = get(t);
+      float y[2] = {v.x, v.y};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (cpeak[h] > 0.0f) y[h] = y[h] / cpeak[h];
+        ss[h] += y[h] * y[h];
+      }
+      put(t, make_float2(y[0], y[1]));
+    }
+  } else {
+    float total[2];
+    combined(2, total);
+    float sigma[2];
+    uint32_t k0[2], k1[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = two ? ra + h : ra;
+      const int scene = r / mics;
+      const float rms = sqrtf(total[h] / (float)out_len);
+      sigma[h] = rms * expf(-snr_db[scene] * 0.11512925464970229f);
+      k0[h] = (uint32_t)seeds[2 * scene];
+      k1[h] = (uint32_t)seeds[2 * scene + 1] +
+              (uint32_t)(r - scene * mics) * palt::kPhiloxW0;
+    }
+    for (int t = first; t < out_len; t += stride) {
+      float2 v = get(t);
+      v.x += sigma[0] * palt::philox_normal((uint32_t)t, k0[0], k1[0]);
+      if (two)
+        v.y += sigma[1] * palt::philox_normal((uint32_t)t, k0[1], k1[1]);
+      put(t, v);
+    }
+    return;
+  }
+  // Steps 0 and 1 keep a maximum (k), steps 0 and 2 a sum of squares.
+  if (step != 2) block_reduce<true>(acc, red);
+  if (step != 1) block_reduce<false>(ss, red);
+  if (threadIdx.x == 0) {
+    if (step != 2) {
+      pa[k * groups + g] = acc[0];
+      if (two) pb[k * groups + g] = acc[1];
+    }
+    if (step != 1) {
+      pa[2 * groups + g] = ss[0];
+      if (two) pb[2 * groups + g] = ss[1];
+    }
+  }
+}
+
 // ---- the render and windowed-GCC stages on the split ---------------------
 //
 // K3's render and K2's windowed GCC (K5 runs both) on K4b's four-step
-// split n = n1 * n2, for 8,192 <= n <= 2^20 where their strips fit one
-// block (`cuda_fft.scene_stages` chooses, from n and the mic count, for
-// K3, K2 and K5 alike; the GCC's is the rows route of
-// ``cuda_fft.gcc_route``); up to 4,096 points one block holds a packed
+// split n = n1 * n2, for 8,192 <= n <= 2^19 where their strips fit one
+// block (``cuda_fft.render_route`` and ``gcc_route`` choose, from n and
+// the mic count, for K3, K2 and K5 alike: the rows routes); up to 4,096
+// points one block holds a packed
 // base row (`render_block`) or a scene (`window_block`, where its rows
-// fit).  Elsewhere the render runs the radix-2 passes (`render_stage`),
-// and the GCC goes through the mic rows' spectra (`window_route`) up to
-// 2^22 and runs the passes (`window_stage`) above.  Three launches a
-// stage on the split:
+// fit).  Elsewhere up to 2^22 both stages go through spectra on the
+// split: the render through the base rows' (`render_spectra`), the GCC
+// through the mic rows' (`window_route`); above 2^22 both run the radix-2
+// passes (`render_stage`, `window_stage`).  Three launches a stage on the
+// split with two-strip row passes:
 //
 // render:  K4a's pass 1 over the base rows (two scenes a packed row);
 //          `render_rows`: the base strip's forward row DFTs, then for
@@ -1481,20 +1634,83 @@ render_rows(const float* __restrict__ tau, const float* __restrict__ gain,
   }
 }
 
-// Render pass 3.  Grid (n2 / kStrip column strips, packed mic rows): the
+// Render pass 2 through the base rows' spectra (`render_spectra`).  Grid
+// (n1 / S, packed mic rows): block (b, pm) forms rows pair_row(b, r) of
+// packed mic row pm, whose mic rows 2pm and 2pm + 1 (row scene * mics +
+// mic: an odd mic count packs across scenes) mix the half spectra spec
+// (scenes, n/2 + 1) of their scenes: bin q <= n/2 of each mirror pair
+// (`pair_task`, so that the reads run over consecutive bins) times
+// `mic_response`, stored as the Hermitian pair (`store_pair`); then the
+// inverse row DFTs and the conjugate twiddle into z.  One strip at any
+// mic count, of S = 16 rows (8 at n2 = 2,048: 172 KB), where
+// `render_rows`' two strips pass a block's shared memory (from 2^20).
+// The grid holds a block for each strip of each packed mic row, 128 to
+// 512 blocks for one scene of 4 mics, so it needs no `row_groups`.
+template <int S>
+__global__ void __launch_bounds__(1024)
+render_spec_rows(const float2* __restrict__ spec,
+                 const float* __restrict__ tau,
+                 const float* __restrict__ gain, int rows, int mics,
+                 int paths, int n1, int n2, const float2* __restrict__ tw,
+                 float2* __restrict__ z) {
+  float2* stw = palt::fft_shared();
+  float2* lo = stw + (n2 >> 1);
+  float2* hi = lo + n1;
+  float2* work = hi + n2;
+  const int ld = n2 + 1;
+  const int n = n1 * n2;
+  const int pm = blockIdx.y;
+  const int b = blockIdx.x;
+  const int ra = 2 * pm;
+  const bool two = ra + 1 < rows;
+  const size_t bins = (size_t)(n >> 1) + 1;
+  const float2* sa = spec + (size_t)(ra / mics) * bins;
+  const float2* sb = spec + (size_t)((two ? ra + 1 : ra) / mics) * bins;
+  const float* ta = tau + (size_t)ra * paths;
+  const float* ga = gain + (size_t)ra * paths;
+  palt::stage_twiddles(stw, tw, n2, n1);
+  stage_split_tables(lo, hi, tw, n1, n2);
+  const int tasks = pair_tasks<S>(b, n2);
+  for (int t = threadIdx.x; t < tasks; t += blockDim.x) {
+    const PairTask p = pair_task<S>(t, b, n1, n2, ld);
+    const float2 ya = cmul(sa[p.q], mic_response(ta, ga, paths, p.q, n));
+    float2 yb = make_float2(0.0f, 0.0f);
+    if (two)
+      yb = cmul(sb[p.q],
+                mic_response(ta + paths, ga + paths, paths, p.q, n));
+    store_pair(work, p, n, ya, yb);
+  }
+  palt::block_fft<S>(work, 1, ld, n2, stw, -1.0f);
+  store_rows<S>(work, z + (size_t)pm * n, lo, hi, b, n1, n2);
+}
+
+// Render pass 3.  Grid (n2 / S column strips, packed mic rows): the
 // inverse column DFTs; sample n2*j1 + j2 goes back to the address the
-// strip read it from, which is its natural place.
+// strip read it from, which is its natural place.  S = kStrip (16)
+// columns, 8 at n1 = 2,048 (``cuda_fft.split_strips``).
+template <int S>
 __global__ void __launch_bounds__(1024)
 render_cols(int n1, int n2, const float2* __restrict__ tw, float2* z) {
-  using palt::kStrip;
   float2* stw = palt::fft_shared();
   float2* buf = stw + (n1 >> 1);
-  const int c0 = blockIdx.x * kStrip;
+  const int c0 = blockIdx.x * S;
   float2* zc = z + (size_t)blockIdx.y * (size_t)(n1 * n2);
   palt::stage_twiddles(stw, tw, n1, n2);
-  cols_inverse(zc, buf, stw, n1, n2, c0);
-  for (int idx = threadIdx.x; idx < n1 * kStrip; idx += blockDim.x)
-    zc[(size_t)(idx / kStrip) * n2 + c0 + idx % kStrip] = buf[idx];
+  cols_inverse<S>(zc, buf, stw, n1, n2, c0);
+  for (int idx = threadIdx.x; idx < n1 * S; idx += blockDim.x)
+    zc[(size_t)(idx / S) * n2 + c0 + idx % S] = buf[idx];
+}
+
+// `render_cols` over `packed` packed mic rows of z, strips of S columns.
+template <int S>
+cudaError_t render_cols_launch(int packed, int n1, int n2, const float2* tw,
+                               float2* z, cudaStream_t s) {
+  const cudaError_t err = palt::allow_smem<render_cols<S>>();
+  if (err != cudaSuccess) return err;
+  render_cols<S><<<dim3(n2 / S, packed), palt::fft_threads(n1, S),
+                   (n1 / 2 + n1 * S) * (int)sizeof(float2), s>>>(n1, n2, tw,
+                                                                 z);
+  return cudaGetLastError();
 }
 
 // GCC pass 2.  Grid (n1 / S, scenes, groups): block (b, scene, g) holds
@@ -1723,12 +1939,52 @@ cudaError_t render_split(const float* base, int scenes, int len,
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = palt::allow_smem<render_cols>();
+  return render_cols_launch<kStrip>((rows + 1) / 2, n1, n2, tw, z, s);
+}
+
+// The render stage through the base rows' spectra (2^20 <= n <= 2^22, the
+// split n = n1 * n2), where `render_rows`' two strips do not fit: K4a's
+// two passes over the base rows (two scenes a packed row) into their half
+// spectra spec (scenes, n/2 + 1) through zb (ceil(scenes / 2), n; may be
+// z, which is written only after), `render_spec_rows`, then
+// `render_cols`, leaving in z (ceil(scenes * mics / 2), n) the unscaled
+// packed inverse of the mixes in natural order, as `render_split` does.
+// cs: the column passes' strip, s2: K4a's pass-2 strip, rs: the row
+// pass's.  Bound: device memory, the bases' read, K4a's packed rows out
+// and back, the spectra out and (a scene's once for each of its mic rows)
+// back, the packed mic rows out and back and the inverse's write.
+cudaError_t render_spectra(const float* base, int scenes, int len,
+                           const float* tau, const float* gain, int mics,
+                           int paths, int n, int n1, int cs, int s2, int rs,
+                           const float2* tw, float2* zb, float2* spec,
+                           float2* z, cudaStream_t s) {
+  const int n2 = n / n1;
+  const int rows = scenes * mics;
+  const int packed = (rows + 1) / 2;
+  cudaError_t err = with_split_strip(cs, [&](auto strip) {
+    return cols_launch<decltype(strip)::value>(
+        RowLoad{base, scenes, len}, (scenes + 1) / 2, n1, n2, tw, zb, s);
+  });
   if (err != cudaSuccess) return err;
-  render_cols<<<dim3(n2 / kStrip, (rows + 1) / 2), fft_threads(n1, kStrip),
-                (n1 / 2 + n1 * kStrip) * (int)sizeof(float2), s>>>(n1, n2,
-                                                                   tw, z);
-  return cudaGetLastError();
+  err = (cudaError_t)fft_real_rows_launch(zb, scenes, n1, n2, s2, tw, spec,
+                                          s);
+  if (err != cudaSuccess) return err;
+  err = with_split_strip(rs, [&](auto strip) {
+    constexpr int S = decltype(strip)::value;
+    const cudaError_t e = palt::allow_smem<render_spec_rows<S>>();
+    if (e != cudaSuccess) return e;
+    render_spec_rows<S><<<dim3(n1 / S, packed), palt::fft_threads(n2, S),
+                          (n2 / 2 + n1 + n2 + S * (n2 + 1)) *
+                              (int)sizeof(float2),
+                          s>>>(spec, tau, gain, rows, mics, paths, n1, n2,
+                               tw, z);
+    return cudaGetLastError();
+  });
+  if (err != cudaSuccess) return err;
+  return with_split_strip(cs, [&](auto strip) {
+    return render_cols_launch<decltype(strip)::value>(packed, n1, n2, tw, z,
+                                                      s);
+  });
 }
 
 // GCC pass 2 (`gcc_rows`) over the packed mic rows zm (after pass 1) of
@@ -2533,6 +2789,60 @@ float2* render_stage(const float* base, int scenes, int len,
   return fft_rows(z0, z1, tw, n, couples, 1, log2_int(n), s);
 }
 
+// K3's render stage (K5's too) on `route`, every route but one block:
+// base rows (scenes, len) -> the unscaled packed inverse of the mixes
+// (rows scene * mics + mic) in *sig: z0 on the split with `render_rows`
+// (through zb0) and through the base rows' spectra (through zb0 and
+// spec), z0 or z1 on the radix-2 passes (through zb0 / zb1).
+cudaError_t render_route(const float* base, int scenes, int len,
+                         const float* tau, const float* gain, int mics,
+                         int paths, int n, int n1, int route, int cs, int s2,
+                         int rs, const float2* tw, float2* zb0, float2* zb1,
+                         float2* z0, float2* z1, float2* spec, float2** sig,
+                         cudaStream_t s) {
+  *sig = z0;
+  if (route == kRouteSpectra)
+    return render_spectra(base, scenes, len, tau, gain, mics, paths, n, n1,
+                          cs, s2, rs, tw, zb0, spec, z0, s);
+  if (route == kRouteRows)
+    return render_split(base, scenes, len, tau, gain, mics, paths, n, n1, tw,
+                        zb0, z0, s);
+  if (route != kRoutePasses) return cudaErrorInvalidValue;
+  *sig = render_stage(base, scenes, len, tau, gain, mics, paths, n, tw, zb0,
+                      zb1, z0, z1, s);
+  return cudaGetLastError();
+}
+
+// The finish of the packed inverse z's mic rows (rows scene * mics + mic)
+// into out (rows, out_len), or in place where packed_out: one launch of
+// `render_finalize`, a block a mic row, where groups is 1; else
+// `finish_spread`'s steps over groups blocks a packed row (4 launches
+// with the finalize and the noise, 3 with the finalize, 2 with the
+// noise, else 1), with the partials in part (rows * 3 * groups).
+cudaError_t finish_launch(float2* z, int rows, int n, int mics, int out_len,
+                          const float* fade, int finalize,
+                          const float* snr_db, const int* seeds, float* out,
+                          int packed_out, int groups, float* part,
+                          cudaStream_t s) {
+  const float scale = 1.0f / (float)n;
+  if (groups == 1) {
+    render_finalize<<<rows, kRowThreads, 0, s>>>(z, n, mics, out_len, fade,
+                                                 scale, finalize, snr_db,
+                                                 seeds, out, packed_out);
+    return cudaGetLastError();
+  }
+  for (int step = 0; step < 4; ++step) {
+    if ((step == 1 || step == 2) && !finalize) continue;
+    if (step == 3 && snr_db == nullptr) continue;
+    finish_spread<<<dim3(groups, (rows + 1) / 2), kRowThreads, 0, s>>>(
+        z, rows, n, mics, out_len, fade, scale, snr_db, seeds, out,
+        packed_out, step, part);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 // Forward spectra of rows scene * mics + mic (packed) -> win / stats of
 // every pair of every scene (K2's back half).
 void window_stage(const float2* spec, int scenes, int mics,
@@ -2820,50 +3130,49 @@ int palt_whitened_corr(const float2* a, const float2* b, int rows, int n,
 // linear gain -> out (scenes, mics, out_len): circular multipath render at
 // length n, scaled by 1/n and fade, optionally finalized per mic, and with
 // measurement noise at snr_db (scenes,) from seeds (scenes, 2) unless
-// snr_db is NULL.  n1 = 1: one block a packed base row (`render_block`),
-// no buffer; n1 > 1: the render on the split (`render_split`) through zb0
-// and z0, then `render_finalize`; n1 = 0: the radix-2 passes through zb0 /
-// zb1 and z0 / z1, then `render_finalize`.
+// snr_db is NULL.  By route (`render_route`; n1 the split's): one block a
+// packed base row (`render_block`), no buffer; the split with
+// `render_rows` through zb0 and z0; the split through the base rows'
+// spectra (`render_spectra`) through zb0 (may be z0), spec (scenes, n/2 +
+// 1) and z0, with strips of cs columns, s2 rows in K4a's pass 2 and rs
+// rows in the row pass; the radix-2 passes through zb0 / zb1 and z0 / z1.
+// Off one block the finish follows (`finish_launch`, over groups blocks a
+// packed mic row, its partials in part).
 int palt_delay_sum(const float* base, int scenes, int len, const float* tau,
                    const float* gain, int mics, int paths, int n, int n1,
                    int out_len, const float* fade, int finalize,
                    const float* snr_db, const int* seeds, const float2* tw,
                    float2* zb0, float2* zb1, float2* z0, float2* z1,
-                   float* out, void* stream) {
+                   int route, int cs, int s2, int rs, float2* spec,
+                   int groups, float* part, float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n1 == 1)
+  if (route == kRouteBlock)
     return (int)render_block_launch(base, scenes, len, tau, gain, mics,
                                     paths, n, out_len, fade, finalize,
                                     snr_db, seeds, tw, out, nullptr, s);
-  float2* sig = z0;
-  if (n1 > 1) {
-    const cudaError_t err = render_split(base, scenes, len, tau, gain, mics,
-                                         paths, n, n1, tw, zb0, z0, s);
-    if (err != cudaSuccess) return (int)err;
-  } else {
-    sig = render_stage(base, scenes, len, tau, gain, mics, paths, n, tw, zb0,
-                       zb1, z0, z1, s);
-    PALT_CHECK();
-  }
-  render_finalize<<<scenes * mics, kRowThreads, 0, s>>>(
-      sig, n, mics, out_len, fade, 1.0f / (float)n, finalize, snr_db, seeds,
-      out, 0);
-  PALT_CHECK();
-  return 0;
+  float2* sig = nullptr;
+  const cudaError_t err =
+      render_route(base, scenes, len, tau, gain, mics, paths, n, n1, route,
+                   cs, s2, rs, tw, zb0, zb1, z0, z1, spec, &sig, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)finish_launch(sig, scenes * mics, n, mics, out_len, fade,
+                            finalize, snr_db, seeds, out, 0, groups, part, s);
 }
 
 // K5: the whole scene.  K3's render with finalize (and noise) for every
 // scene, each finished signal written as the packed forward input of K2's
-// GCC, then K2's GCC stage.  Outputs as K2.  The render in one block, on
-// the split or on the passes as K3 runs it (n1r), through zb0 / zb1 and
-// z0 / z1; the GCC stage on K2's route (`window_route`, with n1g, cs, s2
-// and rs as K2 takes them) over the finished signals (`PackedLoad`) in
-// z0 or z1, where the render left them: at n <= 4096 `render_block` packs
-// them into z0; a split route transforms them in place, the rows route
-// into the cross rows c0, the spectra route into the spectra spec and
-// then the cross rows c0 (z0: the packed rows are dead by then); the
-// spectra block route into spec; the radix-2 passes through the other of
-// z0 / z1 and c0 / c1.
+// GCC, then K2's GCC stage.  Outputs as K2.  The render on K3's route
+// (rroute, with n1r, rcs, rs2 and rrs as K3 takes them; through zb0 /
+// zb1, z0 / z1 and, through the base rows' spectra, spec, which the GCC's
+// spectra overwrite later) with K3's finish (`finish_launch` over groups
+// blocks a packed mic row, its partials in fpart); the GCC stage on K2's
+// route (`window_route`, with n1g, cs, s2 and rs as K2 takes them) over
+// the finished signals (`PackedLoad`) in z0 or z1, where the render left
+// them: at n <= 4096 `render_block` packs them into z0; a split route
+// transforms them in place, the rows route into the cross rows c0, the
+// spectra route into the spectra spec and then the cross rows c0 (z0: the
+// packed rows are dead by then); the spectra block route into spec; the
+// radix-2 passes through the other of z0 / z1 and c0 / c1.
 int palt_scene_windowed(const float* base, int scenes, int len,
                         const float* tau, const float* gain, int mics,
                         int paths, int n, int n1r, int n1g, int route, int cs,
@@ -2874,30 +3183,26 @@ int palt_scene_windowed(const float* base, int scenes, int len,
                         float2* zb0, float2* zb1, float2* z0, float2* z1,
                         float2* c0, float2* c1, float2* spec,
                         unsigned long long* keys, unsigned int* count,
-                        float* part, float* win, float* stats, void* stream) {
+                        float* part, int rroute, int rcs, int rs2, int rrs,
+                        int groups, float* fpart, float* win, float* stats,
+                        void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int rows = scenes * mics;
   float2* sig = z0;
-  if (n1r == 1) {
+  if (rroute == kRouteBlock) {
     const cudaError_t err = render_block_launch(
         base, scenes, len, tau, gain, mics, paths, n, out_len, fade, 1,
         snr_db, seeds, tw, nullptr, z0, s);
     if (err != cudaSuccess) return (int)err;
   } else {
-    if (n1r > 1) {
-      const cudaError_t err = render_split(base, scenes, len, tau, gain,
-                                           mics, paths, n, n1r, tw, zb0, z0,
-                                           s);
-      if (err != cudaSuccess) return (int)err;
-    } else {
-      sig = render_stage(base, scenes, len, tau, gain, mics, paths, n, tw,
-                         zb0, zb1, z0, z1, s);
-      PALT_CHECK();
-    }
-    render_finalize<<<rows, kRowThreads, 0, s>>>(
-        sig, n, mics, out_len, fade, 1.0f / (float)n, 1, snr_db, seeds,
-        nullptr, 1);
-    PALT_CHECK();
+    cudaError_t err =
+        render_route(base, scenes, len, tau, gain, mics, paths, n, n1r,
+                     rroute, rcs, rs2, rrs, tw, zb0, zb1, z0, z1, spec, &sig,
+                     s);
+    if (err != cudaSuccess) return (int)err;
+    err = finish_launch(sig, rows, n, mics, out_len, fade, 1, snr_db, seeds,
+                        nullptr, 1, groups, fpart, s);
+    if (err != cudaSuccess) return (int)err;
   }
   if (route != kRoutePasses)
     return (int)window_route(PackedLoad{sig, rows, n}, route, scenes, mics,

@@ -13,17 +13,20 @@ gcc_all_pairs         bfly_gcc_all_pairs (:922)              memory: 1 to 4*
 gcc_windowed          bfly_gcc_windowed (:1095)              memory: 1 to 4*
 bootstrap_peaks       bfly_bootstrap_peaks (:1227)           memory: 3 launches
 noise_bootstrap_peaks bfly_noise_bootstrap_peaks (:1326)     memory: 3 launches
-scene_windowed        bfly_scene_windowed (:1600)            memory: 2 to 8*
-delay_sum             bfly_delay_sum (:1851)                 memory: 1 or 4 launches
+scene_windowed        bfly_scene_windowed (:1600)            memory: 2 to 12*
+delay_sum             bfly_delay_sum (:1851)                 memory: 1 to 8*
 whiten                pallas_kernels.phat_whiten_planes (:34) memory: 16 B/bin
 ===================== ====================================== ==================
 
-(*) Above 2^22 points K4a, K9, K1, K2 and K5's GCC stage run the radix-2
-passes (K4a: the packing, log2(nfft) passes and the split into the two
-spectra, 2 + log2(nfft) launches).  K1, K2 and K5's GCC take one route a
-shape (``gcc_route``): 1 launch in one block a scene, 3 with
-``gcc_rows``, 4 through the mic rows' spectra on the split, 2 through
-them in one block.
+(*) Above 2^22 points K4a, K9, K1, K2, K3 and K5 run the radix-2 passes
+(K4a: the packing, log2(nfft) passes and the split into the two spectra,
+2 + log2(nfft) launches).  K1, K2 and K5's GCC take one route a shape
+(``gcc_route``): 1 launch in one block a scene, 3 with ``gcc_rows``, 4
+through the mic rows' spectra on the split, 2 through them in one block.
+K3's render and K5's render stage take one route a length
+(``render_route``): 1 launch in one block, 3 with ``render_rows``, 4
+through the base rows' spectra, then the finish: 1 launch, a block a mic
+row, or up to 4 spread over the card (``finish_groups``).
 
 The three kernels of K10, the TPU package's A/B tool of FFT schedules
 (``tools/mxu_rowdft_bench.py:328``), are wrapped by ``ops/rowdft.py``
@@ -33,16 +36,18 @@ library from ``csrc/rowdft.cu``; their launches count here too.
 All but ``whiten`` are built on one FFT (``csrc/fft.cuh``) in two
 schedules.  ``fft_real``, ``bootstrap_peaks``, ``noise_bootstrap_peaks``,
 ``gcc_all_pairs`` and ``whitened_corr`` (and K10's ``row_stages``) and,
-where ``scene_stages`` gives the split, ``delay_sum``, ``gcc_windowed``
-and ``scene_windowed`` run on-chip sub-transforms: a block holds a strip
-of sequences in shared memory for all of its radix-16 stages, and a long
-row is a four-step split of two such launches (``fft_real_split``; the
-bootstrap, the render and the GCCs' ``gcc_rows`` route run it forward
-and back in three, the middle launch holding rows for both directions;
-K9, whose input is spectra, in two; the GCCs' spectra route K4a's two,
-then K9's two with a pair-indexed loader; up to 2^22 for K4a, K4b, K6,
-K9 and the GCCs of K1, K2 and K5, whose strips narrow to 8 at 2,048,
-``split_strips``, and up to 2^19 for K3's render), so a transform reads
+where ``render_route`` and ``gcc_route`` give the split, ``delay_sum``,
+``gcc_windowed`` and ``scene_windowed`` run on-chip sub-transforms: a
+block holds a strip of sequences in shared memory for all of its
+radix-16 stages, and a long row is a four-step split of two such
+launches (``fft_real_split``; the bootstrap, the render's ``render_rows``
+and the GCCs' ``gcc_rows`` routes run it forward and back in three, the
+middle launch holding rows for both directions; K9, whose input is
+spectra, in two; the GCCs' spectra route K4a's two, then K9's two with a
+pair-indexed loader, and the render's K4a's two into the base rows'
+spectra, then a mix row pass and the column pass; up to 2^22 for K4a,
+K4b, K6, K9 and the GCCs and renders of K1, K2, K3 and K5, whose strips
+narrow to 8 at 2,048, ``split_strips``), so a transform reads
 and writes each point once per launch (16 bytes a complex point) and is
 bound by device memory at that.  Up to 4,096 points the bootstraps, K9,
 the render (a packed base row a block) and the all-pairs and windowed
@@ -52,7 +57,7 @@ K3 is one launch there, K2 one or two and K5 two or three.  The others
 run radix-2 Stockham passes over rows in device memory, one launch and
 16 bytes a point per pass, about 16·log2(nfft) bytes per point and
 transform, and fuse their first or last pass into a prologue or
-epilogue: K3's render from 2^20 and everything above 2^22.  The design
+epilogue: everything above 2^22.  The design
 keeps the rest of the work out of device memory where the TPU kernels
 did: real rows are packed two to a complex transform, the whitening /
 ramp synthesis runs in one pass over the spectra, two real results share
@@ -98,11 +103,12 @@ from . import signal as sig_ops
 PHAT_EPS = 1e-10
 # K4a: one block holds the packed row up to this length; the four-step
 # split of two on-chip transforms reaches 2048 x 2048 for K4a, K4b, K6, K9
-# and the GCCs of K1, K2 and K5 (FFT_REAL_MAX), with strips of 8 at 2,048
-# (``split_strips``), and 1024 x 1024 for the row passes that hold more
-# than one strip (STAGE_SPLIT_MAX): K3's render and the GCCs' ``gcc_rows``
-# route; elsewhere the GCCs go through their mic rows' spectra
-# (``gcc_route``).
+# and the GCCs and renders of K1, K2, K3 and K5 (FFT_REAL_MAX), with
+# strips of 8 at 2,048 (``split_strips``), and 1024 x 1024 for the row
+# passes that hold more than one strip (STAGE_SPLIT_MAX): the GCCs'
+# ``gcc_rows`` route and the render's ``render_rows``, whose two strips fit
+# to 2^19; elsewhere the GCCs go through their mic rows' spectra
+# (``gcc_route``) and the render through its base rows' (``render_route``).
 FFT_REAL_ONE_BLOCK = 4096
 FFT_REAL_MAX = 1 << 22
 STAGE_SPLIT_MAX = 1 << 20
@@ -114,6 +120,12 @@ ROW_STRIP = 16
 SPLIT_STRIPS = (16, 8)
 BLOCK_POINTS = 16 * 1024
 SMEM_OPTIN = 232448
+# The spread finish (``finish_groups``): an H100's SMs, the blocks of
+# 1,024 threads it aims for (two an SM) and the most blocks a packed mic
+# row takes.
+FINISH_SMS = 132
+FINISH_BLOCKS = 2 * FINISH_SMS
+FINISH_MAX_GROUPS = 128
 
 #: Kernel launches per wrapper since the last ``reset_launches()``.
 LAUNCHES: Dict[str, int] = {"fft_real": 0, "gcc_all_pairs": 0,
@@ -205,10 +217,11 @@ def _library() -> ctypes.CDLL:
             "palt_gcc_windowed": [p, i, i, i, i, i, i, i, i, i, p, p, i, p,
                                   f, i, p, p, p, p, p, p, p, p, p, p, p],
             "palt_delay_sum": [p, i, i, p, p, i, i, i, i, i, p, i, p, p, p,
-                               p, p, p, p, p, p],
+                               p, p, p, p, i, i, i, i, p, i, p, p, p],
             "palt_scene_windowed": [p, i, i, p, p, i, i, i, i, i, i, i, i, i,
                                     i, p, p, p, p, p, i, p, f, i, p, p, p, p,
-                                    p, p, p, p, p, p, p, p, p, p],
+                                    p, p, p, p, p, p, p, i, i, i, i, i, p, p,
+                                    p, p],
             "palt_row_dft": [p, p, i, i, i, i, i, f, p, p, p, p, p, i, i,
                              p],
             "palt_row_stages": [p, p, i, i, i, i, i, f, p, p, p, p, p, i,
@@ -466,37 +479,56 @@ def gcc_route(nfft: int, mics: int) -> GccRoute:
     return GccRoute(ROUTE_SPECTRA, n1, *split_strips(n1, n2))
 
 
+def render_route(nfft: int) -> GccRoute:
+    """The route of K3's render stage at nfft, K5's too (so that K5 and K3
+    then K2 compute the same bits), in ``gcc_route``'s kinds:
+
+    - up to ``FFT_REAL_ONE_BLOCK`` (4,096), one block a packed base row
+      (``render_block``: the twiddles, the base row and one work row, 80
+      KB at 4,096), n1 = 1;
+    - where the row pass's two strips (the base rows' and one output
+      row's) fit one block's shared memory (``SMEM_OPTIN``: to 2^19),
+      the four-step split nfft = n1 * n2 of ``fft_real_split`` with
+      ``render_rows`` (``ROUTE_ROWS``);
+    - elsewhere up to ``FFT_REAL_MAX`` (2^22), the split through the base
+      rows' spectra (``ROUTE_SPECTRA``): K4a's two passes, the one-strip
+      mix row pass ``render_spec_rows`` and ``render_cols``, with K4a's
+      strips (``split_strips``: 16 and 16 at 2^20, 8 columns from n1 =
+      2,048 and 8 rows at n2 = 2,048);
+    - the radix-2 passes above (n1 = 0).
+
+    The mic count does not enter: the render's row passes hold one or two
+    strips at any mic count."""
+    if nfft <= FFT_REAL_ONE_BLOCK:
+        return GccRoute(ROUTE_BLOCK, 1, 0, 0)
+    if nfft > FFT_REAL_MAX:
+        return GccRoute(ROUTE_PASSES, 0, 0, 0)
+    n1, n2 = fft_real_split(nfft)
+    if _row_pass_smem(n1, n2, 2) <= SMEM_OPTIN:
+        return GccRoute(ROUTE_ROWS, n1, 0, 0)
+    return GccRoute(ROUTE_SPECTRA, n1, *split_strips(n1, n2))
+
+
 def scene_stages(nfft: int, mics: int):
     """(n1 of the render stage, n1 of the GCC stage) for ``mics`` mics a
-    scene at nfft: the schedule of K3's render and of K2's windowed GCC
-    (K5 runs each stage as K3 and K2 run it, so that the fused and the
-    split paths compute the same bits).  The render: 1, one block, up to
-    ``FFT_REAL_ONE_BLOCK`` (4,096: ``render_block``, the twiddles, a
-    packed base row and one work row, 80 KB at 4,096); up to
-    ``STAGE_SPLIT_MAX`` (2^20) the four-step split nfft = n1 * n2 of
-    ``fft_real_split`` where its row pass's two strips (the base rows and
-    one output row at a time) fit one block's shared memory
-    (``SMEM_OPTIN``: to 2^19); else 0, the radix-2 passes.  The GCC: the
-    n1 of ``gcc_route``, whose kind tells one block a scene from one a
-    cross row (both 1) and ``gcc_rows`` from the spectra (both the
-    split's n1); 0, the passes, only above 2^22."""
-    gcc = gcc_route(nfft, mics).n1
-    if nfft <= FFT_REAL_ONE_BLOCK:
-        return 1, gcc
-    if nfft > STAGE_SPLIT_MAX:
-        return 0, gcc
-    n1, n2 = fft_real_split(nfft)
-    return (n1 if _row_pass_smem(n1, n2, 2) <= SMEM_OPTIN else 0), gcc
+    scene at nfft: the n1 of ``render_route`` and of ``gcc_route``, the
+    routes of K3's render and of K2's windowed GCC (K5 runs each stage as
+    K3 and K2 run it).  Both 1 up to 4,096, the split's n1 from 8,192 to
+    2^22, 0 (the radix-2 passes) above."""
+    return render_route(nfft).n1, gcc_route(nfft, mics).n1
 
 
-def gcc_schedule(nfft: int, mics: int) -> int:
-    """n1 of K1's schedule for ``mics`` mics a scene at nfft, K2's GCC
-    stage's (``gcc_route``, one rule for K1, K2 and K5): 1 up to 4,096
-    (one block a scene, or a packed cross row through the spectra beyond
-    the one-block mic limit), the split's n1 from 8,192 to ``FFT_REAL_MAX``
-    (2^22; ``gcc_rows`` where its strips fit, else through the mic rows'
-    spectra), 0, the radix-2 passes, above."""
-    return gcc_route(nfft, mics).n1
+def finish_groups(nfft: int, rows: int) -> int:
+    """Blocks a packed mic row of K3's finish (K5's too) for a launch of
+    ``rows`` mic rows at nfft: 1 (``render_finalize``, a block of 1,024
+    threads a mic row) up to 2^19 and wherever the rows fill the card
+    (``FINISH_SMS`` or more); else, on the render's spectra route, enough
+    for ``FINISH_BLOCKS`` blocks (``finish_spread``), at most
+    ``FINISH_MAX_GROUPS``.  The rule reads the shape only, not the card,
+    so that a call's bits do not depend on the card it runs on."""
+    if render_route(nfft).kind != ROUTE_SPECTRA or rows >= FINISH_SMS:
+        return 1
+    return min(FINISH_MAX_GROUPS, -(-FINISH_BLOCKS // ((rows + 1) // 2)))
 
 
 def corr_schedule(nfft: int) -> int:
@@ -1123,6 +1155,56 @@ def _render_shapes(name, base, tau, gains, nfft, out_samples, fade):
     return lead, scenes, length, mics, paths
 
 
+def _render_buffers(route: GccRoute, scenes: int, mics: int, nfft: int,
+                    device):
+    """K3's buffers on its render ``route`` for ``scenes`` scenes a
+    launch: the strips argument (column strip, K4a's pass-2
+    strip, row strip; all 0 off the spectra route), pointers (zb0, zb1,
+    z0, z1), the spectra (or None) and the tensors.  One block: none.
+    ``render_rows``: the packed base rows and the packed mic rows.  The
+    passes: two copies of each (ping-pong).  The base rows' spectra: the
+    packed mic rows, whose buffer takes K4a's packed base rows first (they
+    are dead once their spectra are written), and the spectra (scenes,
+    nfft/2 + 1)."""
+    packed_b, packed = (scenes + 1) // 2, (scenes * mics + 1) // 2
+    if route.kind != ROUTE_SPECTRA:
+        copies = _copies(route.n1)
+        zb0, zb1, bufs = _buffers(copies, packed_b, nfft, device)
+        z0, z1, mic_bufs = _buffers(copies, packed, nfft, device)
+        return (0, 0, 0), (zb0, zb1, z0, z1), None, bufs + mic_bufs
+    z = _scratch(packed, nfft, device)
+    spec = torch.empty((scenes, nfft // 2 + 1), dtype=torch.complex64,
+                       device=device)
+    return (_render_strips(route, scenes, nfft),
+            (z.data_ptr(), None, z.data_ptr(), None), spec, [z])
+
+
+def _render_strips(route: GccRoute, scenes: int, nfft: int):
+    """(column strip, K4a's pass-2 strip, row strip) of the render's
+    spectra route for ``scenes`` scenes a launch (two a packed base row);
+    (0, 0, 0) on the other routes."""
+    if route.kind != ROUTE_SPECTRA:
+        return 0, 0, 0
+    return (route.cols,
+            fft_real_rows_strip(nfft // route.n1, (scenes + 1) // 2),
+            route.rows)
+
+
+def _finish_scratch(nfft: int, scenes: int, chunk: int, mics: int, device):
+    """The finish's blocks a packed mic row for each scene chunk's launch
+    (``finish_groups`` of its rows) and the spread finish's partials
+    (rows * 3 * groups float32 for the largest need; None where every
+    launch takes one block a mic row)."""
+    groups = [finish_groups(nfft, min(chunk, scenes - s0) * mics)
+              for s0 in range(0, scenes, chunk)]
+    need = max((min(chunk, scenes - s0) * mics * 3 * g
+                for g, s0 in zip(groups, range(0, scenes, chunk)) if g > 1),
+               default=0)
+    part = (torch.empty(need, dtype=torch.float32, device=device) if need
+            else None)
+    return groups, part
+
+
 def delay_sum(base: torch.Tensor, tau: torch.Tensor, gains: torch.Tensor,
               nfft: int, out_samples: int, fade: torch.Tensor,
               finalize: bool, snr_db: Optional[torch.Tensor] = None,
@@ -1145,15 +1227,23 @@ def delay_sum(base: torch.Tensor, tau: torch.Tensor, gains: torch.Tensor,
     covers every scene.  Up to 4,096 points one launch (``render_block``):
     a block a packed base row (two scenes) transforms it once in shared
     memory, then mixes, inverts and finishes its packed mic rows one at a
-    time in one work row, no scratch.  Where ``scene_stages`` gives a
-    split (8,192 <= nfft <= 2^20), four launches on K4b's four-step
-    schedule: K4a's column pass over the bases; a row pass that holds a
-    base strip, mixes each of its mic rows in turn and runs their inverse
-    row DFTs; the inverse column DFTs in place; the finalize, a block a
-    mic row.  Above, the radix-2 passes.  Bound by device memory.  A batch
-    whose grids would exceed 65,535 rows launches over the scene chunks K2
-    and K5 take for all pairs of the same mics (``scene_chunk``), in one
-    block too."""
+    time in one work row, no scratch.  Elsewhere by ``render_route``:
+    from 8,192 to 2^19, K4b's four-step schedule in three launches, K4a's
+    column pass over the bases, a row pass that holds a base strip, mixes
+    each of its mic rows in turn and runs their inverse row DFTs, and the
+    inverse column DFTs in place; from 2^20 to 2^22, where that row pass's
+    two strips do not fit, four: K4a's two passes write the bases' half
+    spectra, a row pass mixes each packed mic row's strip from them (one
+    strip at any mic count) and runs its inverse row DFTs, and the inverse
+    column DFTs (8-wide strips at 2,048); above 2^22 the radix-2 passes.
+    Then the finish: a block a mic row (``render_finalize``), or, where a
+    call's rows from 2^20 are too few to fill the card, spread over
+    ``finish_groups`` blocks a packed mic row in up to four launches
+    (``finish_spread``: its maxima and sums of squares combined across
+    the blocks in block order).  Bound by device memory.  A batch whose
+    grids would exceed 65,535 rows launches over the scene chunks K2 and
+    K5 take for all pairs of the same mics (``scene_chunk``), in one block
+    too."""
     _check_noise_pair("delay_sum", snr_db, seeds)
     if _use_plain(base, tau, gains, fade):
         return delay_sum_plain(base, tau, gains, nfft, out_samples, fade,
@@ -1170,19 +1260,20 @@ def delay_sum(base: torch.Tensor, tau: torch.Tensor, gains: torch.Tensor,
     out = torch.empty(lead + (mics, out_samples), dtype=torch.float32,
                       device=dev)
     chunk = scene_chunk(scenes, mics)
-    n1 = scene_stages(nfft, mics)[0]
-    copies = _copies(n1)
-    zb0, zb1, _zb = _buffers(copies, (chunk + 1) // 2, nfft, dev)
-    zm0, zm1, _zm = _buffers(copies, (chunk * mics + 1) // 2, nfft, dev)
+    route = render_route(nfft)
+    strips, (zb0, zb1, zm0, zm1), spec, _bufs = _render_buffers(
+        route, chunk, mics, nfft, dev)
+    groups, part = _finish_scratch(nfft, scenes, chunk, mics, dev)
     tw = _twiddles(nfft, str(dev))
     base_s, tau_s, gains_s, snr_s, seeds_s, out_s = _scene_views(
         lead, base, tau, gains, snr_db, seeds, out)
-    for s0 in range(0, scenes, chunk):
+    for g, s0 in zip(groups, range(0, scenes, chunk)):
         _launch("delay_sum", dev, lib.palt_delay_sum, base_s[s0].data_ptr(),
                 min(chunk, scenes - s0), length, tau_s[s0].data_ptr(),
-                gains_s[s0].data_ptr(), mics, paths, nfft, n1, out_samples,
-                fade.data_ptr(), int(finalize), _at(snr_s, s0),
+                gains_s[s0].data_ptr(), mics, paths, nfft, route.n1,
+                out_samples, fade.data_ptr(), int(finalize), _at(snr_s, s0),
                 _at(seeds_s, s0), tw.data_ptr(), zb0, zb1, zm0, zm1,
+                route.kind, *strips, _ptr(spec), g, _ptr(part),
                 out_s[s0].data_ptr())
     return out
 
@@ -1217,15 +1308,17 @@ def scene_windowed(base: torch.Tensor, tau: torch.Tensor,
     one scene in VMEM; one scene's 4 x 65,536 complex spectra (2 MB)
     exceed a block's 227 KB of shared memory, so here one host entry runs
     K3's render stage and K2's GCC stage for all scenes back to back on
-    one stream, the render on the schedule ``scene_stages`` gives K3 and
-    the GCC on K2's route (``gcc_route``): up to 4,096 points
+    one stream, the render on K3's route (``render_route``) with K3's
+    finish and the GCC on K2's route (``gcc_route``): up to 4,096 points
     ``render_block`` then ``window_block``, two launches (beyond the
     one-block mic limit ``render_block``, K4a's one-block transform into
     the mic rows' spectra and a block a packed cross row, three); at
     65,536 three launches each on the four-step split, with the finalize
     between, seven in all; where ``gcc_rows`` does not fit (2^20 and up
     at any mic count) the GCC's four launches through the mic rows'
-    spectra; the intermediates in device memory and L2.  The render
+    spectra; from 2^20 to 2^22 the render's four through the base rows'
+    spectra and the finish's one to four (``finish_groups``); the
+    intermediates in device memory and L2.  The render
     writes each finished signal as the packed forward input of the GCC
     stage (zero-padded to nfft), which the GCC's block or column pass
     reads (on the split in place).  The same stage code as ``delay_sum``
@@ -1261,23 +1354,29 @@ def scene_windowed(base: torch.Tensor, tau: torch.Tensor,
     stats = torch.empty(lead + (num_pairs, 3), dtype=torch.float32,
                         device=dev)
     chunk = scene_chunk(scenes, mics, num_pairs)
-    n1r = scene_stages(nfft, mics)[0]
+    rroute = render_route(nfft)
     route = gcc_route(nfft, mics)
     packed, cross = (chunk * mics + 1) // 2, chunk * couples
-    # The base buffers as K3 takes them (none in one block); the packed mic
-    # rows, which hold the finished signals between the stages, once where
-    # the render does not run the passes (the GCC runs them only above
-    # 2^22, where the render does too), the first copy large enough for
-    # the cross rows on the spectra route (they go there once the spectra
-    # are written); the cross rows as K2 takes them on the other routes;
-    # the spectra on the spectra routes.
-    zb0, zb1, _zb = _buffers(_copies(n1r), (chunk + 1) // 2, nfft, dev)
-    two = not n1r
+    # The packed base rows as K3 takes them (none in one block; in the
+    # packed mic rows' buffer through the base rows' spectra); the packed
+    # mic rows, which hold the finished signals between the stages, once
+    # where the render does not run the passes (the GCC runs them only
+    # above 2^22, where the render does too), the first copy large enough
+    # for the cross rows on the GCC's spectra route (they go there once
+    # the spectra are written); the cross rows as K2 takes them on the
+    # other routes; one spectra buffer for the GCC's spectra routes and
+    # the render's, the GCC's rows being the more.
+    rspectra = rroute.kind == ROUTE_SPECTRA
+    zb0, zb1, _zb = _buffers(0 if rspectra else _copies(rroute.n1),
+                             (chunk + 1) // 2, nfft, dev)
+    two = rroute.kind == ROUTE_PASSES
     spectra = route.kind == ROUTE_SPECTRA
     _zm = [_scratch(max(packed, cross) if spectra else packed, nfft, dev)]
     if two:
         _zm.append(_scratch(packed, nfft, dev))
     zm0, zm1 = _zm[0].data_ptr(), (_zm[1].data_ptr() if two else None)
+    if rspectra:
+        zb0 = zm0
     strips, spec = (0, 0, 0), None
     if spectra:
         cpl0, cpl1 = zm0, None
@@ -1287,23 +1386,28 @@ def scene_windowed(base: torch.Tensor, tau: torch.Tensor,
         cpl0, cpl1, _cpl = _buffers(
             0 if route.kind == ROUTE_SPECTRA_BLOCK else _copies(route.n1),
             cross, nfft, dev)
-    if route.kind in (ROUTE_SPECTRA, ROUTE_SPECTRA_BLOCK):
-        spec = torch.empty((chunk * mics, nfft // 2 + 1),
-                           dtype=torch.complex64, device=dev)
+    gcc_spectra = route.kind in (ROUTE_SPECTRA, ROUTE_SPECTRA_BLOCK)
+    if gcc_spectra or rspectra:
+        spec = torch.empty((chunk * mics if gcc_spectra else chunk,
+                            nfft // 2 + 1), dtype=torch.complex64,
+                           device=dev)
+    rstrips = _render_strips(rroute, chunk, nfft)
     keys, count, part = _window_scratch(cross, nfft, route, dev)
+    groups, fpart = _finish_scratch(nfft, scenes, chunk, mics, dev)
     tw = _twiddles(nfft, str(dev))
     base_s, tau_s, gains_s, snr_s, seeds_s, win_s, stats_s = _scene_views(
         lead, base, tau, gains, snr_db, seeds, win, stats)
-    for s0 in range(0, scenes, chunk):
+    for g, s0 in zip(groups, range(0, scenes, chunk)):
         _launch("scene_windowed", dev, lib.palt_scene_windowed,
                 base_s[s0].data_ptr(), min(chunk, scenes - s0), length,
                 tau_s[s0].data_ptr(), gains_s[s0].data_ptr(), mics, paths,
-                nfft, n1r, route.n1, route.kind, *strips, out_samples,
+                nfft, rroute.n1, route.n1, route.kind, *strips, out_samples,
                 fade.data_ptr(), _at(snr_s, s0), _at(seeds_s, s0),
                 pi_t.data_ptr(), pj_t.data_ptr(), num_pairs, mask.data_ptr(),
                 eps, wq, tw.data_ptr(), zb0, zb1, zm0, zm1, cpl0, cpl1,
-                _ptr(spec), _ptr(keys), _ptr(count), _ptr(part),
-                win_s[s0].data_ptr(), stats_s[s0].data_ptr())
+                _ptr(spec), _ptr(keys), _ptr(count), _ptr(part), rroute.kind,
+                *rstrips, g, _ptr(fpart), win_s[s0].data_ptr(),
+                stats_s[s0].data_ptr())
     return win, stats
 
 

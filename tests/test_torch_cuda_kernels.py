@@ -16,6 +16,7 @@ log/cos/sqrt within a few units in the last place) times sigma <= 0.1.
 
 import copy
 import json
+import time
 
 import numpy as np
 import pytest
@@ -30,6 +31,11 @@ from pyaudiolocalization_tpu_torch.ops.delay import fade_window
 from pyaudiolocalization_tpu_torch.parallel import (SweepSpec, localize_batch,
                                                     monte_carlo_sweep,
                                                     run_scene, sweep)
+
+
+# Idle host time inside each edge of a ``_device_kernels`` trace, as
+# ``tools/torch_rowdft_bench.TRACE_EDGE_S``.
+TRACE_EDGE_S = 0.02
 
 
 @pytest.fixture
@@ -142,15 +148,19 @@ def _device_kernels(fn, path, cycles=6):
     third on, the one that records the most kernels (a process's first
     traces may miss kernels, and now and then a later trace records none
     or only some of a call's; a trace never records a kernel that did not
-    run)."""
+    run).  Each trace holds ``TRACE_EDGE_S`` of idle host time inside both
+    of its edges, where a kernel can be lost (the A/B tool's
+    ``TRACE_EDGE_S``)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     names = []
     for cycle in range(cycles):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_EDGE_S)
             fn()
             torch.cuda.synchronize()
+            time.sleep(TRACE_EDGE_S)
         if cycle < 2:
             continue
         prof.export_chrome_trace(str(path))
@@ -600,7 +610,7 @@ def test_gcc_all_pairs_launches_over_scene_chunks(cuda, monkeypatch):
     (2, 3, 600000, 1 << 21, 2048), (None, 4, 2000000, 1 << 22, 2048)])
 def test_gcc_all_pairs_schedules_match_plain(cuda, b, m, length, nfft,
                                              schedule):
-    """K1 on each of its schedules (``gcc_schedule``): one block a scene
+    """K1 on each of its schedules (``gcc_route``'s n1): one block a scene
     (the reverberant sweep's 512 scenes, one scene of 8 mics whose couples
     spread over blocks, the odd edge of 5 scenes x 3 mics, 10 mics), the
     three launches of the split (the api's one scene, whose row pass
@@ -609,7 +619,7 @@ def test_gcc_all_pairs_schedules_match_plain(cuda, b, m, length, nfft,
     split (11 mics at 65,536, past ``gcc_rows``; 3 mics at 2^20; a 23.7 s
     recording's 4 mics at 2^21, 2 scenes of 3 mics, 4 mics at 2^22) and
     the two through them in one block (12 mics at 4,096)."""
-    assert cf.gcc_schedule(nfft, m) == schedule
+    assert cf.gcc_route(nfft, m).n1 == schedule
     g = _gen(cuda, 5)
     sig = torch.randn((m, length) if b is None else (b, m, length),
                       generator=g, device=cuda)
@@ -726,8 +736,9 @@ def test_scene_windowed_on_the_spectra_routes_is_k3_then_k2(
         cuda, scenes, m, paths, total, out, nfft, wq):
     """K5 where its GCC stage goes through the mic rows' spectra (12 mics
     at 4,096 in one block, 6 mics at 2^18 and 4 at 2^20 on the split,
-    with the render on the split at 2^18 and on the passes at 2^20):
-    against its twin within 2e-5, and equal to K3 then K2 to the bit."""
+    with the render on the split at 2^18 and through the base rows'
+    spectra at 2^20): against its twin within 2e-5, and equal to K3 then
+    K2 to the bit."""
     assert cf.gcc_route(nfft, m).kind in (cf.ROUTE_SPECTRA,
                                           cf.ROUTE_SPECTRA_BLOCK)
     base, tau, gains, snr, seeds, fade = _scene_inputs(cuda, scenes, m,
@@ -778,6 +789,106 @@ def test_gcc_spectra_routes_device_kernels_per_call(cuda, tmp_path):
             assert not any(p in name for p in (
                 "stockham_pass", "pack_rows", "gcc_cross",
                 "last_pass_window", "split_pairs")), name
+
+
+# K3 and K5 where the render goes through the base rows' spectra
+# (``render_route``): (scenes, mics, paths, total, out, nfft, wq) of the
+# fast path's one scene of 4 mics at 2^20, 2^21 and 2^22 (chip_smoke.py's
+# FAST_SAMPLES; the finish spread over the card), 2 scenes of 3 mics and 3
+# paths at 2^21 (mic rows packed across scenes, an odd pair count) and 64
+# scenes of 4 mics at 2^20 (rows that fill the card: the finish one block
+# a mic row).
+RENDER_SPECTRA = [(1, 4, 1, 900000, 800000, 1 << 20, 21),
+                  (1, 4, 1, 1600000, 1500000, 1 << 21, 21),
+                  (1, 4, 1, 3100000, 3000000, 1 << 22, 21),
+                  (2, 3, 3, 1600000, 1500000, 1 << 21, 21),
+                  (64, 4, 1, 900000, 800000, 1 << 20, 21)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenes,m,paths,total,out,nfft,wq", RENDER_SPECTRA)
+def test_render_spectra_route_matches_plain(cuda, scenes, m, paths, total,
+                                            out, nfft, wq):
+    """K3 through the base rows' spectra, with the finalize and the noise
+    and with neither, one launch a call: within the A/B tool's
+    ``SCENE_TOL`` (2e-5; raw renders relative to their peak) of its twin;
+    K2 on its signals within 1e-6 with equal argmaxes; K5 within 1e-5 of
+    its twin and equal to K3 then K2 to the bit."""
+    assert cf.render_route(nfft).kind == cf.ROUTE_SPECTRA
+    base, tau, gains, snr, seeds, fade = _scene_inputs(cuda, scenes, m,
+                                                       paths, total, out, 21)
+    pi, pj = _pairs(m)
+    mask = cf.band_mask(nfft, (300.0, 3400.0), 44100.0, device=cuda)
+    cf.reset_launches()
+    raw = cf.delay_sum(base, tau, gains, nfft, out, fade, False)
+    want = cf.delay_sum_plain(base, tau, gains, nfft, out, fade, False)
+    torch.cuda.synchronize()
+    assert float((raw - want).abs().max()) < 2e-5 * float(want.abs().max())
+    del raw, want
+    sigs = cf.delay_sum(base, tau, gains, nfft, out, fade, True, snr, seeds)
+    want = cf.delay_sum_plain(base, tau, gains, nfft, out, fade, True, snr,
+                              seeds)
+    torch.cuda.synchronize()
+    assert sigs.shape == (scenes, m, out)
+    assert float((sigs - want).abs().max()) < 2e-5
+    del want
+    win, stats = cf.gcc_windowed(sigs, pi, pj, nfft, wq, mask)
+    w2, s2 = cf.gcc_windowed_plain(sigs, pi, pj, nfft, wq, mask)
+    fused = cf.scene_windowed(base, tau, gains, pi, pj, nfft, out, wq, fade,
+                              mask, snr, seeds)
+    torch.cuda.synchronize()
+    assert (cf.LAUNCHES["delay_sum"], cf.LAUNCHES["gcc_windowed"],
+            cf.LAUNCHES["scene_windowed"]) == (2, 1, 1)
+    assert float((win - w2).abs().max()) < 1e-6
+    assert torch.equal(stats[..., 2], s2[..., 2])
+    assert torch.equal(fused[0], win) and torch.equal(fused[1], stats)
+    del sigs, w2, s2
+    w5, _ = cf.scene_windowed_plain(base, tau, gains, pi, pj, nfft, out, wq,
+                                    fade, mask, snr, seeds)
+    torch.cuda.synchronize()
+    assert float((fused[0] - w5).abs().max()) < 1e-5
+
+
+@pytest.mark.cuda
+def test_render_spectra_route_device_kernels_per_call(cuda, tmp_path):
+    """Through the base rows' spectra K3 runs K4a's two passes into the
+    spectra, ``render_spec_rows`` and ``render_cols``, then the finish:
+    for one scene of 4 mics spread over the card, ``finish_spread`` 4
+    times with the finalize and the noise, 3 with the finalize, 2 with the
+    noise, once with neither; for 64 scenes one ``render_finalize``.  K5
+    runs K3's kernels, then its GCC's four.  No radix-2 pass anywhere."""
+    render = ["fft_real_cols", "fft_real_rows", "render_spec_rows",
+              "render_cols"]
+    cases = [(1, True, True, ["finish_spread"] * 4),
+             (1, True, False, ["finish_spread"] * 3),
+             (1, False, True, ["finish_spread"] * 2),
+             (1, False, False, ["finish_spread"]),
+             (64, True, True, ["render_finalize"])]
+    for scenes, finalize, noise, finish in cases:
+        base, tau, gains, snr, seeds, fade = _scene_inputs(
+            cuda, scenes, 4, 1, 900000, 800000)
+        nz = (snr, seeds) if noise else (None, None)
+        names = _device_kernels(
+            lambda: cf.delay_sum(base, tau, gains, 1 << 20, 800000, fade,
+                                 finalize, *nz),
+            tmp_path / f"k3_{scenes}_{finalize}_{noise}.json")
+        want = render + finish
+        assert len(names) == len(want), names
+        assert all(w in n for w, n in zip(want, names)), names
+    pi, pj = _pairs(4)
+    mask = cf.band_mask(1 << 20, (300.0, 3400.0), 44100.0, device=cuda)
+    names = _device_kernels(
+        lambda: cf.scene_windowed(base, tau, gains, pi, pj, 1 << 20, 800000,
+                                  21, fade, mask, snr, seeds),
+        tmp_path / "k5.json")
+    want = render + ["render_finalize", "fft_real_cols", "fft_real_rows",
+                     "corr_rows", "window_cols"]
+    assert len(names) == len(want), names
+    assert all(w in n for w, n in zip(want, names)), names
+    for name in names:
+        assert not any(p in name for p in (
+            "stockham_pass", "pack_rows", "render_mix", "gcc_cross",
+            "last_pass_window")), name
 
 
 def test_wrappers_refuse_devices_other_than_cpu_and_cuda():

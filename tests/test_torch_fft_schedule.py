@@ -44,7 +44,7 @@ indices so that a wrong map shows before the card sees it:
   (``gcc_block`` with a scene's rows packed across scenes and couples
   shared over groups, ``corr_block``) against ``gcc_all_pairs_plain`` and
   ``whitened_corr_plain``, and the rules that pick each schedule
-  (``gcc_route``, ``gcc_schedule``, ``corr_schedule``);
+  (``gcc_route``, ``corr_schedule``);
 - K3, K2 and K5 in one block up to 4,096 points: ``render_block`` (a
   packed base row's two scenes, their packed mic rows mixed, inverted
   and finished one at a time, the noise by its Philox key map) against
@@ -766,6 +766,151 @@ def test_render_split_matches_delay_sum(mics, paths, n, strip):
     assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
 
 
+def render_spectra_model(base, tau, gain, n):
+    """K3's render stage through the base rows' spectra (``render_route``'s
+    spectra route, 2^20 to 2^22): base (scenes, len), tau / gain (scenes,
+    mics, paths) -> (scenes, mics, n), the packed inverse of the mixes
+    over n.  K4a's two passes with the kernel's strips
+    (``fft_real_model``) write each scene's half spectrum, every bin once;
+    ``render_spec_rows``: block (b, pm) of packed mic row pm gathers bin q
+    <= n/2 of each of its mirror-pair tasks from the spectra of the scenes
+    of mic rows 2pm and 2pm + 1 (an odd mic count packs across scenes),
+    mixes them (``mic_response``), stores the Hermitian pair, runs the
+    inverse row DFTs and the conjugate twiddle (strips of the route's
+    rows); ``render_cols`` over the route's column strips (8 at n1 =
+    2,048).  Asserts that each strip reads only bins q <= n/2, each once a
+    row."""
+    scenes = base.shape[0]
+    mics, paths = tau.shape[1:]
+    route = cf.render_route(n)
+    assert route.kind == cf.ROUTE_SPECTRA
+    n1, n2 = route.n1, n // route.n1
+    spec, writes = fft_real_model(base, n)
+    assert np.array_equal(writes, np.ones_like(writes))
+    strip = route.rows
+    nb = n1 // strip
+    slot_rows = _slot_rows(n1, strip)
+    tasks = _block_tasks(nb, strip, n1, n2)
+    q = tasks[5]
+    assert np.array_equal(np.bincount(q, minlength=n // 2 + 1),
+                          np.ones(n // 2 + 1, int))
+    rows = scenes * mics
+    packed = (rows + 1) // 2
+    tau_r, gain_r = tau.reshape(rows, paths), gain.reshape(rows, paths)
+    z = np.full((packed, n1, n2), np.nan, complex)
+    for pm in range(packed):
+        ra, rb = 2 * pm, 2 * pm + 1
+        ya = spec[ra // mics][q] * _mic_response(tau_r[ra], gain_r[ra], q, n)
+        yb = np.zeros_like(ya)
+        if rb < rows:
+            yb = spec[rb // mics][q] * _mic_response(tau_r[rb], gain_r[rb],
+                                                     q, n)
+        work = np.full((nb, n2, strip), np.nan, complex)
+        _store_pairs(work, tasks, ya, yb, n)
+        z[pm] = _rows_back(work, slot_rows, n1, n2)
+    assert not np.isnan(z).any()
+    cols = _cols_back(z, n1, n2, route.cols)
+    natural = cols.transpose(0, 2, 1, 3).reshape(packed, n)
+    out = np.stack([natural.real, natural.imag], 1).reshape(-1, n)[:rows]
+    return out.reshape(scenes, mics, n) / n
+
+
+@pytest.mark.parametrize("scenes,mics,paths", [(1, 4, 1), (2, 3, 3)])
+@pytest.mark.parametrize("bits", [20, 21, 22])
+def test_render_spectra_route_matches_delay_sum(bits, scenes, mics, paths):
+    """The render's spectra route (K4a's spectra of the bases, the
+    one-strip mix row pass on every mirror pair, odd mic counts packed
+    across scenes, the inverse columns with 8-wide strips at n1 = 2,048)
+    at 2^20, 2^21 and 2^22, one scene of 4 mics and one path and 2 scenes
+    of 3 mics and 3 paths, against ``delay_sum_plain``'s transform (no
+    finalize, fade 1) within 1e-9 of the max."""
+    n = 1 << bits
+    rng = np.random.default_rng(bits * 100 + scenes * 10 + mics)
+    base, tau, gain = _render_case(rng, scenes, mics, paths, n)
+    got = render_spectra_model(base, tau, gain, n)
+    t = torch.from_numpy
+    want = cf.delay_sum_plain(t(base), t(tau), t(gain), n, n,
+                              torch.ones(n, dtype=torch.float64),
+                              False).numpy()
+    assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
+
+
+def finish_spread_model(y, finalize, snr_db, seeds, scene, mic, groups,
+                        threads=1024):
+    """``finish_spread`` on one scaled, faded, trimmed mic row y over
+    ``groups`` blocks of ``threads``: block g takes samples t = g *
+    threads + x + k * groups * threads; each step's per-block partials
+    (the maxima of |y|, the sums of squares) are combined in block order,
+    the maxima as a running maximum and the sums from 0.  Asserts that the
+    blocks take every sample once.  -> (row, peak, compressed peak,
+    sigma), the last three None where their step does not run."""
+    t = np.arange(y.shape[0])
+    blocks = [np.flatnonzero((t // threads) % groups == g)
+              for g in range(groups)]
+    assert np.array_equal(np.sort(np.concatenate(blocks)), t)
+
+    def peak_of(v):
+        top = 0.0
+        for b in blocks:
+            top = max(top, float(np.abs(v[b]).max(initial=0.0)))
+        return top
+
+    def squares_of(v):
+        total = 0.0
+        for b in blocks:
+            total += np.sum(v[b] * v[b])
+        return total
+
+    peak = cpeak = sigma = None
+    if finalize:
+        peak = peak_of(y)
+        if peak != 0:
+            y = y / peak
+        comp = np.sign(y) * np.log1p(np.abs(y) / 0.8 + 1e-8)
+        cpeak = peak_of(comp)
+        y = comp / cpeak if cpeak > 0 else comp
+    if snr_db is not None:
+        rms = np.sqrt(squares_of(y) / y.shape[0])
+        sigma = rms * np.exp(-snr_db[scene] * noise_ops.LN10_OVER_20)
+        y = y + sigma * _render_noise(seeds, scene, mic, y.shape[0])
+    return y, peak, cpeak, sigma
+
+
+@pytest.mark.parametrize("groups", [1, 3, 32])
+@pytest.mark.parametrize("finalize,noise", [(True, True), (True, False),
+                                            (False, True), (False, False)])
+def test_spread_finish_matches_the_one_block_finish(groups, finalize, noise):
+    """The finish spread over 1, 3 and 32 blocks a row (partials combined
+    in block order) against the one-block finish (``_finish_model``, as
+    ``render_finalize`` and ``render_block`` run it), with the finalize
+    and the noise on and off, on a row of 100,003 samples and a silent
+    row: peaks and sigma within 1e-12 relative, the rows within 1e-12 of
+    their peak; one block equals the one-block finish exactly."""
+    rng = np.random.default_rng(groups * 10 + 2 * finalize + noise)
+    snr, seeds = _noise_inputs(rng, 2)
+    snr, seeds = (snr, seeds) if noise else (None, None)
+    for scene, y in enumerate((rng.standard_normal(100_003) * 3e-3,
+                               np.zeros(100_003))):
+        want = _finish_model(y, finalize, snr, seeds, scene, 1)
+        got, peak, cpeak, sigma = finish_spread_model(y, finalize, snr,
+                                                      seeds, scene, 1, groups)
+        if groups == 1:
+            assert np.array_equal(got, want)
+        assert np.abs(got - want).max() <= 1e-12 * max(
+            np.abs(want).max(), 1e-300)
+        if finalize:
+            assert abs(peak - np.abs(y).max()) <= 1e-12 * peak
+            y = y / peak if peak else y
+            comp = np.sign(y) * np.log1p(np.abs(y) / 0.8 + 1e-8)
+            assert abs(cpeak - np.abs(comp).max()) <= 1e-12 * cpeak
+            y = comp / cpeak if cpeak else comp
+        if noise:
+            exact = np.sqrt(np.mean(y * y)) * np.exp(
+                -snr[scene] * noise_ops.LN10_OVER_20)
+            assert abs(sigma - exact) <= 1e-12 * exact
+            assert (sigma == 0) == (scene == 1)
+
+
 def arg_key(v, j):
     """``arg_key``: float32 v (-0 as +0) and index j -> the uint64 whose
     order is v's, then the smallest j."""
@@ -928,29 +1073,42 @@ def test_window_stats_keep_the_smallest_tied_index(n):
     (4096, 11, (1, 1)), (8192, 3, (128, 128)), (65536, 4, (256, 256)),
     (65536, 10, (256, 256)), (65536, 11, (256, 256)),
     (1 << 18, 4, (512, 512)), (1 << 18, 8, (512, 512)),
-    (1 << 19, 4, (1024, 1024)), (1 << 20, 2, (0, 1024)),
-    (1 << 22, 4, (0, 2048)), (1 << 23, 4, (0, 0))])
+    (1 << 19, 4, (1024, 1024)), (1 << 20, 2, (1024, 1024)),
+    (1 << 22, 4, (2048, 2048)), (1 << 23, 4, (0, 0))])
 def test_scene_stages_rule(n, mics, want):
     """One rule for K3, K2 and K5 (``scene_stages``): up to 4,096 one block
     for the render (its twiddles, base row and work row), and for the
     GCC one block a scene where a scene's packed mic rows and a spare row
     fit, else a packed cross row through the mic rows' spectra
-    (``gcc_route``); K4a's split from 8,192 on, the render's where its row
-    pass's two strips fit one block's shared memory (to 2^19), the GCC's
-    to 2^22 (``gcc_rows`` where its (mics + 1) // 2 + 1 strips fit, else
-    through the spectra); the radix-2 passes elsewhere."""
+    (``gcc_route``); K4a's split from 8,192 to 2^22, the render's with
+    ``render_rows`` where its row pass's two strips fit one block's shared
+    memory (to 2^19), else through the base rows' spectra, whose row pass
+    holds one strip of ``split_strips`` (``render_route``), the GCC's with
+    ``gcc_rows`` where its (mics + 1) // 2 + 1 strips fit, else through
+    the mic rows' spectra; the radix-2 passes above 2^22."""
     got = cf.scene_stages(n, mics)
     assert got == want
     route = cf.gcc_route(n, mics)
     assert got[1] == route.n1
+    render = cf.render_route(n)
+    assert got[0] == render.n1
     if n <= cf.FFT_REAL_ONE_BLOCK:
         assert got[0] == 1 and 8 * (n // 2 + 2 * n) <= cf.SMEM_OPTIN
+        assert render.kind == cf.ROUTE_BLOCK
         smem = 8 * (n // 2 + ((mics + 1) // 2 + 1) * n)
         assert (smem <= cf.SMEM_OPTIN) == (route.kind == cf.ROUTE_BLOCK)
         return
     if got[0]:
-        assert got[0] == cf.fft_real_split(n)[0]
-        assert cf._row_pass_smem(got[0], n // got[0], 2) <= cf.SMEM_OPTIN
+        n1, n2 = cf.fft_real_split(n)
+        assert got[0] == n1
+        two = cf._row_pass_smem(n1, n2, 2) <= cf.SMEM_OPTIN
+        assert render.kind == (cf.ROUTE_ROWS if two else cf.ROUTE_SPECTRA)
+        if not two:
+            assert (render.cols, render.rows) == cf.split_strips(n1, n2)
+            assert cf._row_pass_smem(n1, n2, 1,
+                                     render.rows) <= cf.SMEM_OPTIN
+    else:
+        assert render.kind == cf.ROUTE_PASSES and n > cf.FFT_REAL_MAX
     if route.kind == cf.ROUTE_ROWS:
         assert cf._row_pass_smem(got[1], n // got[1],
                                  (mics + 1) // 2 + 1) <= cf.SMEM_OPTIN
@@ -1208,7 +1366,7 @@ def test_gcc_spectra_route_matches_gcc_all_pairs(bits, scenes, mics):
     ``gcc_all_pairs_plain`` within 1e-9 of the max; every spectrum bin and
     correlation sample written once."""
     n = 1 << bits
-    assert cf.gcc_schedule(n, mics) == 2048
+    assert cf.gcc_route(n, mics).n1 == 2048
     rng = np.random.default_rng(bits * 100 + scenes * 10 + mics)
     sig = rng.standard_normal((scenes, mics, n // 2 + 3000))
     pi, pj = _pairs(mics)
@@ -1316,6 +1474,35 @@ def test_port_matches_jax_package_at_2_21():
     mask = cf.band_mask(n, None, None, dtype=torch.float64)
     got = cf.whitened_corr(spec[:1], spec[1:], mask, n)[0].numpy()
     assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
+
+
+def test_render_scene_matches_jax_package_at_2_21():
+    """The port's ``models/simulator.render_scene`` (``pad_mode='pow2'``,
+    on the CPU in float64: ``delay_sum``'s twin, which the card's spectra
+    route is held to) at total_samples 1,600,000 -> 2^21, 4 mics x 3 paths,
+    against the JAX package's ``render_scene`` on the same numpy inputs:
+    raw renders within 1e-9 of the max, finalized ones within 1e-11 of the
+    max (``test_simulate_signals_matches_jax``'s tolerance for finalized
+    renders)."""
+    import jax.numpy as jnp
+
+    from pyaudiolocalization_tpu.models import simulator as jsim
+    from pyaudiolocalization_tpu_torch.models import simulator as tsim
+    fs, total, out = 44100.0, 1_600_000, 1_550_000
+    rng = np.random.default_rng(2121)
+    base = rng.standard_normal(1_500_000)
+    delays = rng.uniform(0.0, 0.05, (4, 3))
+    gains = rng.uniform(0.1, 1.0, (4, 3))
+    for finalize, tol in ((False, 1e-9), (True, 1e-11)):
+        want = np.asarray(jsim.render_scene(
+            jnp.asarray(base), jnp.asarray(delays), jnp.asarray(gains), fs,
+            total, out, pad_mode="pow2", finalize=finalize))
+        got = tsim.render_scene(
+            torch.from_numpy(base), torch.from_numpy(delays),
+            torch.from_numpy(gains), fs, total, out, pad_mode="pow2",
+            finalize=finalize).numpy()
+        assert got.shape == want.shape == (4, out)
+        assert np.abs(got - want).max() <= tol * np.abs(want).max()
 
 
 def _store_packed(ya, yb, n):
@@ -1447,16 +1634,15 @@ def test_corr_block_matches_whitened_corr(n):
     (1 << 19, 4, 1024), (1 << 20, 2, 1024), (1 << 21, 4, 2048),
     (1 << 21, 64, 2048), (1 << 22, 4, 2048), (1 << 23, 4, 0)])
 def test_gcc_schedule_rule(n, mics, want):
-    """K1's schedule (``gcc_schedule``) is K2's GCC stage's (``scene_stages``
-    and ``gcc_route``), one rule: one block up to 4,096 (a scene where the
+    """K1's schedule (``gcc_route``'s n1) is K2's GCC stage's
+    (``scene_stages``), one rule: one block up to 4,096 (a scene where the
     twiddles, a scene's widest span of packed rows and a spare row fit one
     block's shared memory, else a packed cross row through the spectra);
     K4a's split from 8,192 to 2^22 (``gcc_rows`` or the spectra, which
     hold one strip at any mic count); the passes above."""
-    got = cf.gcc_schedule(n, mics)
-    assert got == want == cf.scene_stages(n, mics)[1]
     route = cf.gcc_route(n, mics)
-    assert got == route.n1
+    got = route.n1
+    assert got == want == cf.scene_stages(n, mics)[1]
     if 1 < got:
         assert got == cf._split_n1(n)
     if n <= cf.FFT_REAL_ONE_BLOCK:

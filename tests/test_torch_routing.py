@@ -168,30 +168,133 @@ N1_ARGS = {"gcc_all_pairs": slice(4, 6), "gcc_windowed": slice(4, 6),
 @pytest.mark.parametrize("kernel,nfft,n1", [
     (k, n, n1) for k in ("gcc_windowed", "scene_windowed", "gcc_all_pairs")
     for n, n1 in ((1 << 20, 1024), (1 << 21, 2048), (1 << 22, 2048))] + [
-    ("delay_sum", n, 0) for n in (1 << 20, 1 << 21, 1 << 22)] + [
+    ("delay_sum", n, n1) for n, n1 in ((1 << 20, 1024), (1 << 21, 2048),
+                                       (1 << 22, 2048))] + [
     ("gcc_all_pairs", 1 << 23, 0), ("gcc_windowed", 1 << 23, 0),
     ("scene_windowed", 1 << 23, 0),
     ("whitened_corr", 1 << 20, 1024), ("whitened_corr", 1 << 21, 2048),
     ("whitened_corr", 1 << 22, 2048), ("whitened_corr", 1 << 23, 0)])
 def test_other_kernels_keep_their_routes_above_2_20(launches, kernel, nfft,
                                                     n1):
-    """K4a's, K4b's and K6's split reaches 2^22, and so do K9's and the
-    GCCs' of K1, K2 and K5 (4 mics a scene): n1 = 1,024 at 2^20 and 2,048
-    at 2^21 and 2^22, the GCCs through their mic rows' spectra, the radix-2
-    passes (n1 = 0) at 2^23.  K3's render keeps the passes from 2^20 on,
-    where its row pass's two strips do not fit (``scene_stages``), and so
-    does K5's render stage."""
+    """K4a's, K4b's and K6's split reaches 2^22, and so do K9's, the GCCs'
+    of K1, K2 and K5 (4 mics a scene) and the renders of K3 and K5: n1 =
+    1,024 at 2^20 and 2,048 at 2^21 and 2^22, the GCCs through their mic
+    rows' spectra and the renders through their base rows' spectra
+    (``render_route``), the radix-2 passes (n1 = 0) at 2^23."""
     _route(kernel, nfft)
     (args,) = _named(launches, kernel)
     if kernel == "scene_windowed":
-        assert args[7:10] == (nfft, 0, n1)
+        assert args[7:10] == (nfft, n1, n1)
     else:
         assert args[N1_ARGS[kernel]] == (nfft, n1)
-    assert cf.scene_stages(nfft, 4) == (0, cf.gcc_schedule(nfft, 4))
+    assert cf.scene_stages(nfft, 4) == (n1, cf.gcc_route(nfft, 4).n1)
+    if kernel in ("delay_sum", "scene_windowed"):
+        kind = args[19] if kernel == "delay_sum" else args[35]
+        assert kind == (cf.ROUTE_PASSES if nfft > cf.FFT_REAL_MAX
+                        else cf.ROUTE_SPECTRA)
     if kernel in ("gcc_all_pairs", "gcc_windowed", "scene_windowed"):
         kind = args[10 if kernel == "scene_windowed" else 6]
         assert kind == (cf.ROUTE_PASSES if nfft > cf.FFT_REAL_MAX
                         else cf.ROUTE_SPECTRA)
+
+
+# Where K3's and K5's render route (kind, column strip, K4a's pass-2
+# strip, row strip), its buffers (zb0, zb1, z0, z1; K5's z0 is its packed
+# mic rows, spec its GCC's spectra), the spectra and the finish's (groups,
+# partials) sit in each launch's arguments.
+RENDER_ARGS = {"delay_sum": (slice(19, 23), slice(15, 19), 23, slice(24, 26)),
+               "scene_windowed": (slice(35, 39), slice(25, 29), 31,
+                                  slice(39, 41))}
+
+
+@pytest.mark.parametrize("nfft,n1,strips", [
+    (1 << 20, 1024, (16, 16, 16)), (1 << 21, 2048, (8, 16, 16)),
+    (1 << 22, 2048, (8, 8, 8)), (1 << 23, 0, (0, 0, 0))])
+def test_renders_from_2_20_take_the_base_rows_spectra(launches, nfft, n1,
+                                                      strips):
+    """K3 and K5 on one scene of 4 mics: from 2^20 to 2^22 the render
+    through the base rows' spectra (``render_route``), n1 1,024 / 2,048 /
+    2,048 with K4a's strips (8 columns from n1 = 2,048, K4a's pass-2 strip
+    of one packed base row, 8 rows at n2 = 2,048), K4a's packed base rows
+    in the packed mic rows' buffer, no ping-pong copy, the spectra, and the
+    finish spread over 128 blocks a packed mic row with its partials
+    (``finish_groups``); at 2^23 the radix-2 passes, two copies of each
+    buffer, one block a mic row."""
+    _route("delay_sum", nfft)
+    _route("scene_windowed", nfft)
+    spectra = nfft <= cf.FFT_REAL_MAX
+    kind = cf.ROUTE_SPECTRA if spectra else cf.ROUTE_PASSES
+    for name in RENDER_ARGS:
+        (args,) = _named(launches, name)
+        rsched, bufs, spec, finish = RENDER_ARGS[name]
+        assert args[7:9] == (nfft, n1)
+        assert args[rsched] == (kind,) + strips
+        zb0, zb1, z0, z1 = args[bufs]
+        groups, part = args[finish]
+        if spectra:
+            assert zb0 == z0 and zb1 is None and z1 is None
+            assert args[spec] is not None
+            assert groups == cf.finish_groups(nfft, 4) == 128
+            assert part is not None
+        else:
+            assert None not in (zb0, zb1, z0, z1)
+            assert (groups, part) == (1, None)
+
+
+@pytest.mark.parametrize("nfft,kind,n1", [
+    (512, cf.ROUTE_BLOCK, 1), (4096, cf.ROUTE_BLOCK, 1),
+    (8192, cf.ROUTE_ROWS, 128), (65536, cf.ROUTE_ROWS, 256),
+    (1 << 19, cf.ROUTE_ROWS, 1024)])
+def test_renders_up_to_2_19_keep_their_launches(launches, nfft, kind, n1):
+    """Up to 2^19 K3 and K5 render as before the spectra route: one block
+    up to 4,096 (no buffer), ``render_rows`` on the split (one copy of the
+    packed base and mic rows), no strips, no render spectra, and the
+    finish one block a mic row (groups 1, no partials) even for one scene
+    of 4 mics."""
+    _route("delay_sum", nfft)
+    _route("scene_windowed", nfft)
+    for name in RENDER_ARGS:
+        (args,) = _named(launches, name)
+        rsched, bufs, spec, finish = RENDER_ARGS[name]
+        assert args[7:9] == (nfft, n1)
+        assert args[rsched] == (kind, 0, 0, 0)
+        assert args[finish] == (1, None)
+        zb0, zb1, z0, z1 = args[bufs]
+        assert (zb0 is not None) == (kind == cf.ROUTE_ROWS) and zb1 is None
+        assert zb0 != z0 or zb0 is None
+        if name == "delay_sum":
+            assert args[spec] is None
+            assert (z0 is not None) == (kind == cf.ROUTE_ROWS)
+
+
+@pytest.mark.parametrize("nfft,rows,want", [
+    (1 << 19, 4, 1), (1 << 20, 4, 128), (1 << 20, 2, 128), (1 << 21, 6, 88),
+    (1 << 22, 12, 44), (1 << 20, 131, 4), (1 << 20, 132, 1),
+    (1 << 20, 256, 1), (1 << 23, 4, 1)])
+def test_finish_groups_rule(nfft, rows, want):
+    """The finish's blocks a packed mic row (``finish_groups``): one block a
+    mic row up to 2^19, above 2^22 and wherever a launch's rows fill the
+    card's 132 SMs; else enough for 264 blocks, at most 128 a packed
+    row."""
+    assert cf.finish_groups(nfft, rows) == want
+
+
+def test_spread_finish_partials_cover_each_scene_chunk(launches):
+    """Each scene chunk's launch takes the finish's groups of its own rows,
+    and the partials hold the largest need: 2 scenes x 4 mics at 2^20
+    need 8 rows x 3 x 64 blocks."""
+    base, fade = torch.zeros(2, 1000), torch.ones(1000)
+    tau, gains = torch.zeros(2, 4, 1), torch.ones(2, 4, 1)
+    groups, part = cf._finish_scratch(1 << 20, 2, 2, 4, "cpu")
+    assert groups == [cf.finish_groups(1 << 20, 8)] == [66]
+    assert part.numel() == 8 * 3 * 66
+    groups, part = cf._finish_scratch(1 << 20, 67, 64, 4, "cpu")
+    assert groups == [1, cf.finish_groups(1 << 20, 12)] == [1, 44]
+    assert part.numel() == 12 * 3 * 44
+    assert cf._finish_scratch(65536, 3, 3, 4, "cpu") == ([1], None)
+    cf.delay_sum(base, tau, gains, 1 << 20, 1000, fade, True)
+    (args,) = _named(launches, "delay_sum")
+    assert args[24] == 66 and args[1] == 2
 
 
 @pytest.mark.parametrize("nfft,strips", [(1 << 21, (8, 16, 16)),
@@ -321,13 +424,12 @@ def test_no_gcc_route_runs_the_passes_up_to_2_22():
     """For 2 to 128 mics at every power of two from 4 to 2^22 the GCC of
     K1, K2 and K5 takes one block, ``gcc_rows`` or the mic rows' spectra,
     never the radix-2 passes; at 2^23 every mic count takes the passes.
-    ``gcc_schedule`` and ``scene_stages`` read the route's n1."""
+    ``scene_stages`` reads the route's n1."""
     for bits in range(2, 24):
         nfft = 1 << bits
         for mics in range(2, 129):
             route = cf.gcc_route(nfft, mics)
             assert (route.kind == cf.ROUTE_PASSES) == (bits == 23)
-            assert cf.gcc_schedule(nfft, mics) == route.n1
             assert cf.scene_stages(nfft, mics)[1] == route.n1
             if route.kind == cf.ROUTE_SPECTRA:
                 assert route.n1 == cf.fft_real_split(nfft)[0]

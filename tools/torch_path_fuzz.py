@@ -141,8 +141,8 @@ def _stage(n1: int) -> str:
 
 
 def _gcc_stage(route) -> str:
-    """A GCC route's label: "block", "split n1" (``gcc_rows``), "spectra
-    n1", "spectra block" or "passes"."""
+    """A GCC or render route's label: "block", "split n1" (``gcc_rows``,
+    ``render_rows``), "spectra n1", "spectra block" or "passes"."""
     from pyaudiolocalization_tpu_torch.ops import cuda_fft as cf
     if route.kind == cf.ROUTE_ROWS:
         return f"split {route.n1}"
@@ -153,7 +153,7 @@ def _gcc_stage(route) -> str:
 
 def route(cfg: dict) -> Dict[str, tuple]:
     """{kernel: (nfft, n1, ..., schedule)} that ``cfg`` launches on the
-    card, by the wrappers' own schedule rules (``cuda_fft.scene_stages``,
+    card, by the wrappers' own schedule rules (``cuda_fft.render_route``,
     ``gcc_route``, ``_split_n1``, ``corr_schedule``); the GCCs' tuples
     hold their route's kind after n1."""
     from pyaudiolocalization_tpu_torch.ops import cuda_fft as cf
@@ -167,16 +167,16 @@ def route(cfg: dict) -> Dict[str, tuple]:
     spec = sweep_spec(cfg)
     m, nfft = spec.num_mics, spec.nfft
     render = next_pow2(spec.total_samples)
-    r1 = cf.scene_stages(render, m)[0]
-    out = {"delay_sum": (render, r1, _stage(r1))}
+    r1 = cf.render_route(render)
+    out = {"delay_sum": (render, r1.n1, _gcc_stage(r1))}
     gcc = cf.gcc_route(nfft, m)
     if tsw._use_windowed(spec):
-        n1r = cf.scene_stages(nfft, m)[0]
+        rr = cf.render_route(nfft)
         out["gcc_windowed"] = (nfft, gcc.n1, gcc.kind, _gcc_stage(gcc))
         if tsw._mono_scene_eligible(spec):
             out["scene_windowed"] = (
-                nfft, n1r, gcc.n1, gcc.kind,
-                f"fused {_stage(n1r)}/{_gcc_stage(gcc)}")
+                nfft, rr.n1, gcc.n1, gcc.kind,
+                f"fused {_gcc_stage(rr)}/{_gcc_stage(gcc)}")
     else:
         out["gcc_all_pairs"] = (nfft, gcc.n1, gcc.kind, _gcc_stage(gcc))
     return out

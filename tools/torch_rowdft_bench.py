@@ -50,7 +50,11 @@ the pair's null at 64 and 1,000 draws and one row at 2^22; K1 at the
 23.7 s recording's 4 and 8 mics at 2^21 and 4 mics at 2^22, K9 at one
 pair of each); ``--gcc --long`` times only K1 (``ROUTE_GCC``) and K2,
 K3 and K5 (``ROUTE_SCENES``) at the shapes where the GCC goes through
-the mic rows' spectra; ``--recording`` runs chip_smoke.py's 4 x 24 s
+the mic rows' spectra, and K3 at the shapes of its render through the
+base rows' spectra (``--scene --long``: those of K2, K3 and K5 alone,
+then chip_smoke.py's simulated 20 s and 60 s scenes on the fast path,
+``long_scenes``, K3 at 2^20 and 2^22: their wall time cold and warm and
+their device time by kernel); ``--recording`` runs chip_smoke.py's 4 x 24 s
 recording (phase 10, ``long_recording``) from this tree at 2^21 and 2^22
 and its recordings of the spectra routes (``spectra_recordings``, 2^20
 to 2^22): their wall time cold and warm and their device time by
@@ -195,15 +199,22 @@ GCC_SHAPES = {"api": (None, 4, 44100, 65536, BAND),
 # K1 at 11 mics x 65,536, 8 mics x 2^18, 4 mics of an 18 s recording at
 # 2^20, 128 x 16 mics at 4,096 and its shapes above 2^20 (GCC_SHAPES);
 # K2 (with K3 and K5 beside it, ``SCENE_SHAPES``' layout) at the fast
-# path's 4 mics at 2^20, 2^21 and 2^22, 512 x 12 mics at 4,096 and one
-# scene of 6 mics at 2^18.
+# path's 4 mics at 2^20, 2^21 and 2^22, where K3's render also goes
+# through the base rows' spectra with its finish spread over the card,
+# 512 x 12 mics at 4,096 and one scene of 6 mics at 2^18; K3 alone at 2
+# scenes x 3 mics x 3 paths at 2^21 (mic rows packed across scenes) and
+# 64 scenes x 4 mics at 2^20 (rows that fill the card: one finish block a
+# mic row).
 ROUTE_GCC = ("mics11", "spectra18", "spectra20", "spectra_block", "long",
              "long8", "long22")
 ROUTE_SCENES = {"fast20": (1, 4, 1, 900000, 800000, 1 << 20, 21, True),
                 "fast21": (1, 4, 1, 1600000, 1500000, 1 << 21, 21, True),
                 "fast22": (1, 4, 1, 3100000, 3000000, 1 << 22, 21, True),
                 "spectra_block": (512, 12, 1, 4094, 4000, 4096, 2, True),
-                "spectra18": (1, 6, 1, 250000, 200000, 1 << 18, 8, True)}
+                "spectra18": (1, 6, 1, 250000, 200000, 1 << 18, 8, True),
+                "odd21": (2, 3, 3, 1600000, 1500000, 1 << 21, None, True),
+                "scenes20": (64, 4, 1, 900000, 800000, 1 << 20, None,
+                             True)}
 CORR_SHAPES = {"main": (1, 44100, 65536), "no_gate": (1, 44100, 131072),
                "edge": (3, 3000, 4096), "long": (1, LONG, 1 << 21),
                "long22": (1, 2000000, 1 << 22)}
@@ -880,14 +891,31 @@ def recording(card: str) -> None:
     2^20; 16, 30 and 60 s on the fast path at 2^20 to 2^22), logged beside
     ``card``.  A tree whose K1 or K2 still runs its radix-2 passes there
     logs them (``hold_split=False``, ``hold_spectra=False``)."""
+    smoke = _smoke()
+    smoke.CARD[0] = card
+    smoke.long_recording(cf, torch, {}, hold_split=False)
+    smoke.spectra_recordings(cf, torch, {}, hold_spectra=False)
+
+
+def simulations(card: str) -> None:
+    """``chip_smoke.long_scenes`` of this tree (the simulated 20 s and 60 s
+    scenes on the fast path, K3's render at 2^20 and 2^22: wall time cold
+    and warm, device time by kernel, the TDOAs against the CPU's), logged
+    beside ``card``; a tree whose K3 still renders on the radix-2 passes
+    there logs them (``hold_spectra=False``)."""
+    smoke = _smoke()
+    smoke.CARD[0] = card
+    smoke.long_scenes(cf, torch, {}, hold_spectra=False)
+
+
+def _smoke():
+    """This tree's ``chip_smoke.py`` as a module."""
     import importlib.util
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   REPO / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    smoke.CARD[0] = card
-    smoke.long_recording(cf, torch, {}, hold_split=False)
-    smoke.spectra_recordings(cf, torch, {}, hold_spectra=False)
+    return smoke
 
 
 def main() -> int:
@@ -910,9 +938,11 @@ def main() -> int:
     ap.add_argument("--long", action="store_true",
                     help="time only K4a, K4b, K6, K1 and K9 at their "
                          "shapes above 2^20 (the split's strips of 8 "
-                         "columns); with --gcc, K1, K2 and K5 at the "
+                         "columns); with --gcc, K1, K2, K3 and K5 at the "
                          "shapes of their GCC through the mic rows' "
-                         "spectra")
+                         "spectra and of the render through the base "
+                         "rows'; with --scene, only K2, K3 and K5 there "
+                         "and the simulated 20 s and 60 s scenes")
     ap.add_argument("--recording", action="store_true",
                     help="localize chip_smoke.py's 4 x 24 s recording "
                          "(phase 10) cold and warm, with its device time "
@@ -943,9 +973,12 @@ def main() -> int:
     cf.build()
 
     if args.long or args.recording:
-        if args.long and args.gcc:
-            gcc(args.reps, log, names=ROUTE_GCC)
+        if args.long and (args.gcc or args.scene):
+            if args.gcc:
+                gcc(args.reps, log, names=ROUTE_GCC)
             scene(args.reps, log, ROUTE_SCENES)
+            if args.scene:
+                simulations(smi)
         elif args.long:
             k4a(4 * args.reps, log, LONG_MIN)
             boot(2 * args.reps, log, LONG_MIN)
