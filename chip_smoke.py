@@ -14,13 +14,16 @@ in twelve phases:
    at no_gate's 131,072, the single pair's two rows and 1024 rows against
    ``torch.fft.rfft``, with device times, two rows of a 23.7 s
    recording at 2^21 and one row at 2^22 on the split with strips of 8,
-   2 device kernels a call, and one row at 2^23 on the radix-2 passes, 25;
-   K4b also at no_gate's 131,072
-   and two rows, with its device time and kernels per call, and above
-   2^20 at 64 and 1,000 rows of the 23.7 s pair at 2^21 and 3 rows at
-   2^22, 3 device kernels a call, and 3 rows at 2^23 on the passes, 48;
-   K6 also at 131,072 and at K4b's shapes above 2^20 (the passes at 2^23:
-   47 kernels), each shape equal to K4b on the same draws, with its device
+   2 device kernels a call, one row at 2^23 (2,048 x 4,096: strips of 8
+   columns and 4 rows) and at 2^24 (4,096 x 4,096: 4 and 4) on the split
+   too, 2, and one row at 2^25 on the radix-2 passes, 27; K4b also at
+   no_gate's 131,072 and two rows, with its device time and kernels per
+   call, and above 2^20 at 64 and 1,000 rows of the 23.7 s pair at 2^21
+   and 3 rows at 2^22, 2^23 and 2^24, 3 device kernels a call, and 3 rows
+   at 2^25 on the passes, 52; K6 also at 131,072 and at K4b's shapes above
+   2^20 (the passes at 2^25: 51 kernels) and at 300 draws at 2^24 (two
+   launches under the scratch's byte cap), each shape equal to K4b on the
+   same draws, with its device
    time and kernels per call, as K5, K3 and K2 at the sweep's and the
    api's shapes; K3, K2 and K5 also at an odd mic count on the split, K5
    at the api's scene, each within 1e-6 of K3 then K2, and K3, K2 and K5
@@ -158,7 +161,10 @@ in twelve phases:
    memory, a warm call's wall time and its device time by kernel, then
    the same recording under ``max_expected_delay=None`` (nfft 2^22: K1,
    K4a and K6 on their split of 8-wide strips) the same way; neither run
-   launches a radix-2 pass of K1; 4-mic recordings at 44.1 kHz (no
+   launches a radix-2 pass of K1; a 4 x 60 s recording at 44.1 kHz under
+   ``max_expected_delay=None`` (nfft 2^23: K4a and K6 on their split past
+   2^22, K1 on its passes) the same way, with no radix-2 pass of K4a or
+   K6; 4-mic recordings at 44.1 kHz (no
    resampling) of 16 s on the full core (K1 at 2^20) and of 16, 30 and
    60 s on the fast path (K2 at 2^20, 2^21 and 2^22), the GCC through the
    mic rows' spectra, each the same way, none with a radix-2 pass of K1
@@ -300,13 +306,13 @@ ADDED = {("delay_sum", "odd"): 1, ("gcc_windowed", "odd"): 1,
          ("gcc_all_pairs", "calibration"): 6,
          ("gcc_all_pairs", "calibration6"): 6, ("delay_sum", "short"): 7,
          ("gcc_windowed", "short"): 7, ("scene_windowed", "short"): 7,
-         ("fft_real", "long22"): 8, ("fft_real", "passes23"): 8,
+         ("fft_real", "long22"): 8, ("fft_real", "split23"): 8,
          ("bootstrap_peaks", "long"): 8, ("bootstrap_peaks", "long1000"): 8,
-         ("bootstrap_peaks", "long22"): 8, ("bootstrap_peaks", "passes23"): 8,
+         ("bootstrap_peaks", "long22"): 8, ("bootstrap_peaks", "split23"): 8,
          ("noise_bootstrap_peaks", "long"): 8,
          ("noise_bootstrap_peaks", "long1000"): 8,
          ("noise_bootstrap_peaks", "long22"): 8,
-         ("noise_bootstrap_peaks", "passes23"): 8,
+         ("noise_bootstrap_peaks", "split23"): 8,
          ("gcc_all_pairs", "long"): 9, ("gcc_all_pairs", "long8"): 9,
          ("gcc_all_pairs", "long22"): 9, ("whitened_corr", "long"): 9,
          ("whitened_corr", "long22"): 9, ("gcc_all_pairs", "spectra20"): 10,
@@ -320,27 +326,38 @@ ADDED = {("delay_sum", "odd"): 1, ("gcc_windowed", "odd"): 1,
          ("delay_sum", "fast21"): 11, ("delay_sum", "fast22"): 11,
          ("delay_sum", "odd21"): 11, ("delay_sum", "scenes20"): 11,
          ("scene_windowed", "fast20"): 11, ("scene_windowed", "fast21"): 11,
-         ("scene_windowed", "fast22"): 11}
+         ("scene_windowed", "fast22"): 11, ("fft_real", "split24"): 12,
+         ("fft_real", "passes25"): 12, ("bootstrap_peaks", "split24"): 12,
+         ("bootstrap_peaks", "passes25"): 12,
+         ("noise_bootstrap_peaks", "split24"): 12,
+         ("noise_bootstrap_peaks", "draws24"): 12,
+         ("noise_bootstrap_peaks", "passes25"): 12}
 # The sweep across K2's, K3's and K5's scene-chunk boundary: one scene past
 # the 65,535 grid rows of one launch at 4 mics (3 couples), at nfft 512.
 CHUNK_SCENES = 21846
 LONG_NFFT = 1 << 21       # K4a's, K4b's and K6's split of 8-wide strips
 LONG_SAMPLES = 1046019    # 23.7 s at 44.1 kHz: the api's nfft passes 2^20
 LONG_DRAWS = 64
-# Phase 3's cases above 2^20: (samples, nfft) of one row at K4a's, K4b's
-# and K6's largest split (2,048 x 2,048: 8 columns and 8 rows a strip) and
-# past it (the radix-2 passes), with their device kernels a call there
-# (K4a: the packing, 23 passes, the split; K4b: the packing, 23 forward
-# passes, the whitening, 22 inverse ones and the last with the maxima;
-# K6: its first pass draws the rows).
+# Phase 3's cases above 2^20: (samples, nfft) of one row at K9's and the
+# GCCs' largest split (2,048 x 2,048: 8 columns and 8 rows a strip), at
+# K4a's, K4b's and K6's splits past it (2,048 x 4,096: 8 columns, 4 rows;
+# 4,096 x 4,096: 4 and 4; a 47.5 s and a 95 s recording at 44.1 kHz under
+# ``max_expected_delay=None``) and past those (the radix-2 passes), with
+# their device kernels a call there (K4a: the packing, 25 passes, the
+# split; K4b: the packing, 25 forward passes, the whitening, 24 inverse
+# ones and the last with the maxima; K6: its first pass draws the rows);
+# K6's draws at 2^24 that take two launches under the byte cap.
 LONG22 = (2000000, 1 << 22)
-PASSES23 = (4200000, 1 << 23)
+SPLIT23 = (4200000, 1 << 23)
+SPLIT24 = (8400000, 1 << 24)
+PASSES25 = (16800000, 1 << 25)
+DRAWS24 = 300
 # Phase 3's cases of the GCCs' spectra routes: one scene's samples at the
 # fast path's (and the full core's) 2^20, 2^21 and 2^22 under
 # DEFAULT_CONFIG (18.1, 34.0 and 68.0 s at 44.1 kHz).
 FAST_SAMPLES = {1 << 20: 800000, 1 << 21: 1500000, 1 << 22: 3000000}
-PASSES23_KERNELS = {"fft_real": 25, "bootstrap_peaks": 48,
-                    "noise_bootstrap_peaks": 47}
+PASSES25_KERNELS = {"fft_real": 27, "bootstrap_peaks": 52,
+                    "noise_bootstrap_peaks": 51}
 # The card's name and power limit (nvidia-smi), set by main().
 CARD = ["not read"]
 # Device kernels a call of K3 or K2 runs at phase 3's one-block shapes
@@ -748,14 +765,17 @@ def kernel_phase(cf, torch):
     # time, which a single row's host time between calls dominates.
     # "long": the single pair's two rows of a 23.7 s recording at 2^21 and
     # "long22" one row at 2^22, on the split with strips of 8 columns (2
-    # device kernels a call); "passes23" one row at 2^23, past the split,
-    # on the radix-2 passes.
+    # device kernels a call); "split23" and "split24" one row at 2^23 and
+    # 2^24 on K4a's split past K9's (the long side in the rows: 2,048 x
+    # 4,096 and 4,096 x 4,096, 2 device kernels); "passes25" one row at
+    # 2^25, past it, on the radix-2 passes.
     for tag, (rows_n, length, nfft) in {
             "main": (1, N, NFFT), "no_gate": (1, N, 2 * NFFT),
             "single_pair": (2, N, NFFT), "rows": (1024, NFFT, NFFT),
             "edge": (1, 3000, 4096),
             "long": (2, LONG_SAMPLES, LONG_NFFT),
-            "long22": (1,) + LONG22, "passes23": (1,) + PASSES23}.items():
+            "long22": (1,) + LONG22, "split23": (1,) + SPLIT23,
+            "split24": (1,) + SPLIT24, "passes25": (1,) + PASSES25}.items():
         draw("fft_real", tag)
         x = randn(rows_n, length).contiguous()
         res = compare(
@@ -771,10 +791,10 @@ def kernel_phase(cf, torch):
             f"{device_ms(lambda: cf.fft_real(x, nfft))['total']:.4f} ms, "
             f"torch.fft.rfft "
             f"{device_ms(lambda: torch.fft.rfft(x, n=nfft))['total']:.4f} ms")
-        if tag in ("long", "long22", "passes23"):
+        if tag in ("long", "long22", "split23", "split24", "passes25"):
             log_device(f"fft_real[{tag}]", lambda: cf.fft_real(x, nfft),
-                       kernels=PASSES23_KERNELS["fft_real"]
-                       if tag == "passes23" else 2)
+                       kernels=PASSES25_KERNELS["fft_real"]
+                       if tag == "passes25" else 2)
         if tag == "main":
             results["fft_real"] = res
         del x
@@ -782,19 +802,24 @@ def kernel_phase(cf, torch):
     def long_kernels(name, tag):
         """Device kernels a call of K4b or K6 at a case above 2^20: three
         on the split (the column pass, the row pass, the column pass with
-        the maxima), the radix-2 passes' count at 2^23; None below."""
-        if tag.startswith("long"):
+        the maxima), six where the draws take two launches under the
+        scratch's byte cap, the radix-2 passes' count at 2^25; None
+        below."""
+        if tag.startswith(("long", "split")):
             return 3
-        return PASSES23_KERNELS[name] if tag == "passes23" else None
+        if tag == "draws24":
+            return 6
+        return PASSES25_KERNELS[name] if tag == "passes25" else None
 
     # K4b: bootstrap null at 1000 permuted rows, at the main path's 65,536
     # and no_gate's 131,072 (three launches over the four-step split);
     # edges: two rows (16-row strips) and 999 rows at 4,096 (one block).
     # Above 2^20: the 23.7 s pair's null at phase 10's 64 draws and at the
     # default 1,000 (2,048 x 1,024: strips of 8 columns, 16 rows), 3 rows
-    # at 2^22 (8 columns, 8 rows), 3 device kernels a call each, and 3 rows
-    # at 2^23 on the radix-2 passes; their twins run in chunks of rows
-    # (the bench tool's ``twin_rows``; up to 2^16 one call).
+    # at 2^22 (8 columns, 8 rows), at 2^23 (8 columns, 4 rows) and at 2^24
+    # (4 and 4), 3 device kernels a call each, and 3 rows at 2^25 on the
+    # radix-2 passes; their twins run in chunks of rows (the bench tool's
+    # ``twin_rows``; up to 2^16 one call).
     # The device time per call and the device kernels a call runs
     # (torch.profiler) are logged beside the CUDA-event time.
     for tag, (rows_n, length, nfft) in {
@@ -802,7 +827,8 @@ def kernel_phase(cf, torch):
             "two": (2, N, NFFT), "edge": (999, 3000, 4096),
             "long": (LONG_DRAWS, LONG_SAMPLES, LONG_NFFT),
             "long1000": (NULL_DRAWS, LONG_SAMPLES, LONG_NFFT),
-            "long22": (3,) + LONG22, "passes23": (3,) + PASSES23}.items():
+            "long22": (3,) + LONG22, "split23": (3,) + SPLIT23,
+            "split24": (3,) + SPLIT24, "passes25": (3,) + PASSES25}.items():
         draw("bootstrap_peaks", tag)
         sig2 = randn(length)
         keys = rand(rows_n, length)
@@ -825,8 +851,10 @@ def kernel_phase(cf, torch):
         del rows
 
     # K6: the noise null, 1000 draws of 44,100 samples (edge: an odd draw
-    # count and n_samp <= nfft/2, the TPU kernel's pruned shape), and K4b's
-    # shapes above 2^20.  Bound: K4b's transforms and whitening plus ~10
+    # count and n_samp <= nfft/2, the TPU kernel's pruned shape), K4b's
+    # shapes above 2^20 and 300 draws at 2^24 (two launches of 256 and 44
+    # under ``cuda_fft.SPLIT_SCRATCH_BYTES``).  Bound: K4b's transforms
+    # and whitening plus ~10
     # operations per uniform draw.  K6 runs K4b's schedules with the draws
     # made where they are read, so on the same draws (the twin's) its peaks
     # must equal K4b's exactly.
@@ -836,7 +864,9 @@ def kernel_phase(cf, torch):
             "edge": (999, 1500, 4096),
             "long": (LONG_DRAWS, LONG_SAMPLES, LONG_NFFT),
             "long1000": (NULL_DRAWS, LONG_SAMPLES, LONG_NFFT),
-            "long22": (3,) + LONG22, "passes23": (3,) + PASSES23}.items():
+            "long22": (3,) + LONG22, "split23": (3,) + SPLIT23,
+            "split24": (3,) + SPLIT24, "draws24": (DRAWS24,) + SPLIT24,
+            "passes25": (3,) + PASSES25}.items():
         draw("noise_bootstrap_peaks", tag)
         s1 = cf.fft_real_plain(randn(1, n_samp), nfft)[0].contiguous()
         seeds = randint(rows_n, 2)
@@ -846,7 +876,7 @@ def kernel_phase(cf, torch):
             lambda: cf.noise_bootstrap_peaks(s1, seeds, n_samp, nfft),
             lambda: twin_rows(lambda sd: cf.noise_bootstrap_peaks_plain(
                 s1, sd, n_samp, nfft), seeds, nfft),
-            tol=1e-6, reps=3,
+            tol=1e-6, reps=1 if tag == "draws24" else 3,
             least=bound(8 * (nfft // 2 + 1) + 8 * rows_n + 4 * rows_n,
                         rows_n * (2 * _rfft_ops(nfft) + (nfft // 2) * 15
                                   + 10 * n_samp)))
@@ -866,6 +896,10 @@ def kernel_phase(cf, torch):
                    kernels=long_kernels("noise_bootstrap_peaks", tag))
         if tag == "main":
             results["noise_bootstrap_peaks"] = res
+    # The cases above 2^22 leave tens of GB in the allocator's cache (the
+    # 300 draws' 16 GiB scratch, their 10 GB of twin draws): give it back,
+    # so that the cases and phases that follow start as they did before.
+    torch.cuda.empty_cache()
 
     # K7: PHAT whitening.  Main: the single pair at the exact length 88,199
     # (44,100 bins); edges: three odd rows, and 44,100 bins that start
@@ -3006,6 +3040,77 @@ SPECTRA_RECORDINGS = ((16, "full core", 1 << 20), (16, "fast path", 1 << 20),
                       (30, "fast path", 1 << 21), (60, "fast path", 1 << 22))
 
 
+def _noise_recording(seed, fs, n, delays, prefix):
+    """Paths of 4 WAV files written by the port's write_wav at ``fs``: n
+    samples each of one seeded noise source delayed by ``delays`` whole
+    samples, plus a tenth of independent noise."""
+    import os
+    import tempfile
+    import numpy as np
+    from pyaudiolocalization_tpu_torch.utils import audio_io
+    rng = np.random.default_rng(seed)
+    lead = max(delays)
+    src = rng.standard_normal(n + lead)
+    tmp = tempfile.mkdtemp(prefix=prefix)
+    paths = []
+    for k, d in enumerate(delays):
+        x = src[lead - d:lead - d + n] + 0.1 * rng.standard_normal(n)
+        paths.append(os.path.join(tmp, f"mic{k + 1}.wav"))
+        audio_io.write_wav(paths[-1], 0.9 * x / np.max(np.abs(x)), fs)
+    return paths
+
+
+def _localize_recording(cf, torch, launches, name, paths, med, want,
+                        note):
+    """``localize_sound_source`` from ``paths`` on the card in physical
+    mode with the noise null at ``LONG_DRAWS`` draws a pair under
+    ``max_expected_delay=med`` (K1, K4a and K6; no K4b, K3, K2 or K5):
+    each TDOA within 0.5 samples of ``want``, then a second, warm call's
+    wall time and one more call's device time by kernel
+    (``torch.profiler``), logged; returns that device time."""
+    from pyaudiolocalization_tpu_torch import DEFAULT_CONFIG
+    from pyaudiolocalization_tpu_torch import localize_sound_source
+    cfg = scene_configs(DEFAULT_CONFIG)["default"]
+    cfg["localization"].update(bootstrap_mode="noise",
+                               num_bootstrap=LONG_DRAWS,
+                               max_expected_delay=med)
+
+    def run():
+        return _wall(torch, lambda: localize_sound_source(
+            cfg, audio_files=paths, use_simulation=False, device="cuda",
+            dtype=torch.float32))
+
+    expect = ("gcc_all_pairs", "fft_real", "noise_bootstrap_peaks")
+    (res, seconds), counts = run_path(
+        cf, name, run, expect, ("bootstrap_peaks",) + RECORDED_FORBID[:3])
+    _add(launches, counts)
+    got = [float(t) * FS for t in res["tdoas"]]
+    err = max(abs(a - b) for a, b in zip(got, want))
+    log(f"{name} localized in {seconds:.3f} s wall ({note} and "
+        f"{LONG_DRAWS} noise draws a pair included): TDOAs "
+        f"{[round(v, 3) for v in got]} samples, injected "
+        f"{[round(v, 3) for v in want]}, max |diff| {err:.3f} samples "
+        f"{card_note()}")
+    if not err < 0.5 or not all(map(math.isfinite, got)):
+        raise AssertionError(f"{name}: the TDOAs depart from the "
+                             "injected delays")
+    (_, warm), counts = run_path(cf, f"{name}, warm", run, expect)
+    _add(launches, counts)
+    dev = _load_tool("torch_rowdft_bench").device_ms(run, 1)
+    log(f"{name} warm: {warm:.3f} s wall; device time a call "
+        f"{dev['total']:.3f} ms in {dev['kernels']:g} kernels, by kernel: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+            dev.items(), key=lambda kv: -kv[1])
+            if k not in ("total", "kernels")) + f" {card_note()}")
+    return dev
+
+
+def _pair_delays(delays, scale=1.0):
+    """The injected TDOA of every mic pair (i < j), in samples."""
+    return [(delays[j] - delays[i]) * scale
+            for i in range(4) for j in range(i + 1, 4)]
+
+
 def long_recording(cf, torch, launches, hold_split=True):
     """Step 3: 4 mics x 24 s at 48 kHz of a seeded noise source with
     whole-sample delays, written by the port's write_wav and read back:
@@ -3019,23 +3124,11 @@ def long_recording(cf, torch, launches, hold_split=True):
     call's device time by kernel (``torch.profiler``), which holds no
     kernel of K1's radix-2 passes (``K1_PASS_KERNELS``; ``hold_split``
     False only logs them, for an A/B against a tree that runs them)."""
-    import os
-    import tempfile
-    import numpy as np
-    from pyaudiolocalization_tpu_torch import DEFAULT_CONFIG, api
-    from pyaudiolocalization_tpu_torch import localize_sound_source
+    from pyaudiolocalization_tpu_torch import api
     from pyaudiolocalization_tpu_torch.utils import audio_io
-    rng = np.random.default_rng(24)
     n = LONG_FILE_FS * LONG_SECONDS
-    lead = max(LONG_DELAYS)
-    src = rng.standard_normal(n + lead)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_long_")
-    paths = []
-    for k, d in enumerate(LONG_DELAYS):
-        x = src[lead - d:lead - d + n] + 0.1 * rng.standard_normal(n)
-        paths.append(os.path.join(tmp, f"mic{k + 1}.wav"))
-        audio_io.write_wav(paths[-1], 0.9 * x / np.max(np.abs(x)),
-                           LONG_FILE_FS)
+    paths = _noise_recording(24, LONG_FILE_FS, n, LONG_DELAYS,
+                             "chip_smoke_long_")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rows, seconds = _wall(torch, lambda: audio_io.read_audio_files(
@@ -3045,9 +3138,7 @@ def long_recording(cf, torch, launches, hold_split=True):
     log(f"24 s recording: read + resample 4 x {n:,} -> {length:,} samples "
         f"{seconds:.3f} s wall, peak device memory {peak:.3f} GiB "
         f"{card_note()}")
-    pairs = [(i, j) for i in range(4) for j in range(i + 1, 4)]
-    want = [(LONG_DELAYS[j] - LONG_DELAYS[i]) * FS / LONG_FILE_FS
-            for i, j in pairs]
+    want = _pair_delays(LONG_DELAYS, FS / LONG_FILE_FS)
     for med, nfft_want in ((0.05, LONG_NFFT), (None, LONG22[1])):
         nfft = api._physical_nfft(length, FS, med)
         name = f"the 24 s recording (noise null, max_expected_delay={med})"
@@ -3055,46 +3146,58 @@ def long_recording(cf, torch, launches, hold_split=True):
             f"{cf.gcc_route(nfft, 4).n1}")
         if length < LONG_SAMPLES or nfft != nfft_want:
             raise AssertionError(f"{name} misses nfft {nfft_want}")
-        cfg = scene_configs(DEFAULT_CONFIG)["default"]
-        cfg["localization"].update(bootstrap_mode="noise",
-                                   num_bootstrap=LONG_DRAWS,
-                                   max_expected_delay=med)
-
-        def run():
-            return _wall(torch, lambda: localize_sound_source(
-                cfg, audio_files=paths, use_simulation=False, device="cuda",
-                dtype=torch.float32))
-
-        (res, seconds), counts = run_path(
-            cf, name, run,
-            ("gcc_all_pairs", "fft_real", "noise_bootstrap_peaks"),
-            ("bootstrap_peaks",) + RECORDED_FORBID[:3])
-        _add(launches, counts)
-        got = [float(t) * FS for t in res["tdoas"]]
-        err = max(abs(a - b) for a, b in zip(got, want))
-        log(f"{name} localized in {seconds:.3f} s wall (files, resampling "
-            f"and {LONG_DRAWS} noise draws a pair included): TDOAs "
-            f"{[round(v, 3) for v in got]} samples, injected "
-            f"{[round(v, 3) for v in want]}, max |diff| {err:.3f} samples "
-            f"{card_note()}")
-        if not err < 0.5 or not all(map(math.isfinite, got)):
-            raise AssertionError(f"{name}: the TDOAs depart from the "
-                                 "injected delays")
-        (_, warm), counts = run_path(
-            cf, f"{name}, warm", run,
-            ("gcc_all_pairs", "fft_real", "noise_bootstrap_peaks"))
-        _add(launches, counts)
-        dev = _load_tool("torch_rowdft_bench").device_ms(run, 1)
-        log(f"{name} warm: {warm:.3f} s wall; device time a call "
-            f"{dev['total']:.3f} ms in {dev['kernels']:g} kernels, by kernel: "
-            + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
-                dev.items(), key=lambda kv: -kv[1])
-                if k not in ("total", "kernels")) + f" {card_note()}")
+        dev = _localize_recording(cf, torch, launches, name, paths, med,
+                                  want, "files, resampling")
         passes = [k for k in dev if any(p in k for p in K1_PASS_KERNELS)]
         if passes and hold_split:
             raise AssertionError(f"{name} ran K1's radix-2 passes: {passes}")
         log(f"{name}: K1's radix-2 pass kernels in the trace: "
             f"{passes or 'none'}")
+
+
+# Step 3b's recording: 4 mics x 60 s at 44.1 kHz (no resampling) with
+# whole-sample delays near the 24 s recording's once resampled, whose GCC
+# and noise null transform at 2^23 under ``max_expected_delay=None``
+# (next_pow2(2n - 1)); and the device kernels of K4a's and K6's radix-2
+# passes (``palt_fft_real`` and ``palt_noise_bootstrap_peaks`` at n1 = 0)
+# that K1's passes there do not run too.
+REC23_SECONDS = 60
+REC23_DELAYS = (0, 22, 56, 89)
+K4A_K6_PASS_KERNELS = ("split_spectra", "noise_first_pass", "boot_whiten",
+                       "last_pass_max")
+
+
+def recording23(cf, torch, launches, hold_split=True):
+    """Step 3b: 4 mics x 60 s at 44.1 kHz of a seeded noise source with
+    whole-sample delays (``REC23_DELAYS``), written by the port's write_wav
+    and read back without resampling, localized under
+    ``max_expected_delay=None`` with the noise null at ``LONG_DRAWS`` draws
+    a pair: nfft 2^23, K4a and K6 on their split past 2^22 (2,048 x 4,096),
+    K1 on its radix-2 passes.  Each TDOA within 0.5 samples of its injected
+    delay; then a second, warm call's wall time and one more call's device
+    time by kernel (``torch.profiler``), which holds no kernel of K4a's or
+    K6's passes (``K4A_K6_PASS_KERNELS``; ``hold_split`` False only logs
+    them, for an A/B against a tree that runs them); K1's pass kernels
+    (``K1_PASS_KERNELS``) are logged, not held."""
+    from pyaudiolocalization_tpu_torch import api
+    n = int(FS) * REC23_SECONDS
+    paths = _noise_recording(60, FS, n, REC23_DELAYS, "chip_smoke_rec23_")
+    nfft = api._physical_nfft(n, FS, None)
+    name = (f"the {REC23_SECONDS} s recording at 44.1 kHz (noise null, "
+            "max_expected_delay=None)")
+    log(f"{name}: nfft {nfft}, K4a's and K6's schedule n1="
+        f"{cf._split_n1(nfft)}, K1's n1={cf.gcc_route(nfft, 4).n1}")
+    if nfft != SPLIT23[1]:
+        raise AssertionError(f"{name} misses nfft {SPLIT23[1]}")
+    dev = _localize_recording(cf, torch, launches, name, paths, None,
+                              _pair_delays(REC23_DELAYS), "files")
+    passes = [k for k in dev if any(p in k for p in K4A_K6_PASS_KERNELS)]
+    if passes and hold_split:
+        raise AssertionError(f"{name} ran K4a's or K6's radix-2 passes: "
+                             f"{passes}")
+    log(f"{name}: K4a's and K6's radix-2 pass kernels in the trace: "
+        f"{passes or 'none'}; K1's (on its passes at 2^23): "
+        f"{[k for k in dev if any(p in k for p in K1_PASS_KERNELS)]}")
 
 
 def spectra_recordings(cf, torch, launches, hold_spectra=True):
@@ -3372,6 +3475,8 @@ def recorded_phase(cf, torch, golden, sweep_golden, launches):
         recorded_api(cf, torch, golden, paths, launches)
     with profiling.stage("phase 10: the 24 s recording"):
         long_recording(cf, torch, launches)
+    with profiling.stage("phase 10: the 60 s recording at 2^23"):
+        recording23(cf, torch, launches)
     with profiling.stage("phase 10: the spectra routes' recordings"):
         spectra_recordings(cf, torch, launches)
     with profiling.stage("phase 10: compat on the card"):

@@ -220,7 +220,7 @@ inline int sm_count() {
 }
 
 // Calls launch(std::integral_constant<int, S>()) for K4a's pass-2 strip
-// width s2 = S of 8, 16, 32 or 64 rows (a template argument of the
+// width s2 = S of 4, 8, 16, 32 or 64 rows (a template argument of the
 // kernel).
 template <typename Launch>
 cudaError_t with_strip(int s2, Launch launch) {
@@ -228,19 +228,25 @@ cudaError_t with_strip(int s2, Launch launch) {
   if (s2 == 32) return launch(std::integral_constant<int, 32>());
   if (s2 == 16) return launch(std::integral_constant<int, 16>());
   if (s2 == 8) return launch(std::integral_constant<int, 8>());
+  if (s2 == 4) return launch(std::integral_constant<int, 4>());
   return cudaErrorInvalidValue;
 }
 
 // The same for the strips of the split's column passes (K4a's, K4b's,
 // K6's, K9's and the GCCs' spectra route's) and of K4b's, K6's and
 // `corr_rows`' row passes (K9's, and K1's, K2's and K5's on the spectra
-// route): 16 (kStrip) up to n1 (n2) = 1,024, 8 at 2,048
-// (``cuda_fft.split_strips``).
-template <typename Launch>
+// route): 16 (kStrip) up to n1 (n2) = 1,024, 8 at 2,048, and (kFour, the
+// split of K4a, K4b and K6 above 2^22) 4 at 4,096
+// (``cuda_fft.split_strips``).  Only kFour's callers instantiate their
+// kernels at 4: the other routes stop at 2^22.
+template <bool kFour = false, typename Launch>
 cudaError_t with_split_strip(int strip, Launch launch) {
   if (strip == palt::kStrip)
     return launch(std::integral_constant<int, palt::kStrip>());
   if (strip == 8) return launch(std::integral_constant<int, 8>());
+  if constexpr (kFour) {
+    if (strip == 4) return launch(std::integral_constant<int, 4>());
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -267,11 +273,20 @@ cudaError_t with_split_strip(int strip, Launch launch) {
 // KB), past `block_fft`'s kElems * 1024 points and a block's 227 KB, so
 // the host takes 8 (n1 * 8 = 16,384 points, 164-172 KB: 64 bytes, two
 // 32-byte sectors, of each row a strip reads), and pass 2 strips of 8 rows
-// at n2 = 2,048.  Bound: device memory, 32 bytes a point of the packed
-// rows over the split (pass 1 writes Y, pass 2 reads it: 16 each way)
-// besides the rows' read and the spectra's write.
+// at n2 = 2,048.  Above 2^22 (K4a, K4b and K6 only) the long side goes to
+// the rows, n1 <= n2: 2048 x 4096 at 2^23 keeps the 8-column strips (184
+// KB) and takes pass-2 strips of 4 rows (2 rows k1 and their partners),
+// 4096 x 4096 at 2^24 strips of 4 columns (208 KB; one 32-byte sector a
+// row) and of 4 rows.  Nothing here needs n1 >= n2: the twiddle e = j2*k1
+// < n splits as W_n2^{e / n1} W_n^{e mod n1} at any n1, the sub-twiddles
+// of either side are every (n/L)-th entry of the table, and the partner
+// rows n1 - k1 (row n1/2 in the slot of row 0's) are rows of n1.  Bound:
+// device memory, 32 bytes a point of the packed rows over the split (pass
+// 1 writes Y, pass 2 reads it: 16 each way) besides the rows' read and the
+// spectra's write.
 
-// Row of Y in slot r (< 2 * pairs) of pass-2 block b.
+// Row of Y in slot r (< 2 * pairs) of pass-2 block b; block 0's slot
+// `pairs` holds row n1/2, row 0's own partner being itself.
 __device__ __forceinline__ int pair_row(int b, int r, int n1, int pairs) {
   const int own = b * pairs + (r % pairs);
   if (r < pairs) return own;
@@ -410,8 +425,8 @@ struct PackedLoad {
   }
 };
 
-// Pass 1.  Grid (n2 / S column strips, packed rows), S = kStrip (16) or
-// 8 columns a strip (n1 * S <= kElems * 1024).  The twiddle W_n^{j2 k1}
+// Pass 1.  Grid (n2 / S column strips, packed rows), S = kStrip (16), 8
+// or 4 columns a strip (n1 * S <= kElems * 1024).  The twiddle W_n^{j2 k1}
 // from the two tables of `stage_split_tables`.  The block writes the
 // strip it read, so y may be the loader's own buffer.
 template <class Load, int S>
@@ -468,7 +483,8 @@ cudaError_t cols_launch(Load load, int packed, int n1, int n2,
 // rows) -> out (rows, n/2 + 1).  The output's runs of consecutive bins are
 // S / 2 long: S = 64 or 32 where the strip fits in shared memory and the
 // batch fills the card, 8 at n2 = 2,048 (runs of 4 bins, one 32-byte
-// sector), else 16 (``cuda_fft.fft_real_rows_strip``).
+// sector), 4 at 4,096 (runs of 2), else 16
+// (``cuda_fft.fft_real_rows_strip``).
 template <int S>
 __global__ void __launch_bounds__(1024)
 fft_real_rows(const float2* __restrict__ y, int rows, int n1, int n2,
@@ -522,7 +538,7 @@ fft_real_rows(const float2* __restrict__ y, int rows, int n1, int n2,
   }
 }
 
-// K4a above 2^22 (n1 = 0), after the radix-2 passes: packed natural-order
+// K4a above 2^24 (n1 = 0), after the radix-2 passes: packed natural-order
 // rows z (ceil(rows/2), n) -> the two real spectra, bins 0..n/2 of rows
 // 2c and 2c+1 of out (rows, n/2 + 1).  The split's bound holds: one read
 // of the packed row and one write of each spectrum.
@@ -542,7 +558,7 @@ __global__ void split_spectra(const float2* __restrict__ z, int rows, int n,
   }
 }
 
-// Pass 2 with S = s2 (8, 16, 32 or 64).
+// Pass 2 with S = s2 (4, 8, 16, 32 or 64).
 int fft_real_rows_launch(const float2* y, int rows, int n1, int n2, int s2,
                          const float2* tw, float2* out, cudaStream_t s) {
   const int packed = (rows + 1) / 2;
@@ -714,7 +730,7 @@ __global__ void last_pass_window(const float2* __restrict__ in,
 // mirrored, whose inverse column DFTs end in the maxima.  A maximum does
 // not depend on where a sample lies, so the output of the inverse is never
 // put in natural order.  For n <= 4096 one block holds the packed row
-// (`boot_block`); above 2^22 the radix-2 passes of `boot_stage` run
+// (`boot_block`); above 2^24 the radix-2 passes of `boot_stage` run
 // instead.  K6 is the same pipeline with its rows drawn by the loader
 // (`NoiseLoad`) where K4b reads them (`RowLoad`).  Bound: device memory,
 // one read of the rows and two reads and two writes of the packed buffer
@@ -722,12 +738,15 @@ __global__ void last_pass_window(const float2* __restrict__ in,
 //
 // The strips: up to 2^20 (n1, n2 <= 1,024) 16 columns in both column
 // passes and 16 rows in the row pass.  At 2^21 (2,048 x 1,024) and 2^22
-// (2,048 x 2,048) the host takes the widest strip of {16, 8} that holds
-// at most kElems * 1024 points and fits a block's shared memory
+// (2,048 x 2,048) the host takes the widest strip of {16, 8, 4} that
+// holds at most kElems * 1024 points and fits a block's shared memory
 // (``cuda_fft.split_strips``): the column passes 8 columns (16,384 points,
 // 164-172 KB), the row pass 16 rows at n2 = 1,024 and 8 at 2,048 (172
 // KB).  A strip of 8 columns reads 64 bytes, two 32-byte sectors, of each
-// row; of 4 it would read one, which is why the split stops at 2^22.
+// row; of 4 it reads one.  So above 2^22 the long side goes to the rows:
+// 2,048 x 4,096 at 2^23 (columns 8, `boot_rows` 4 rows: 196,640 bytes)
+// and 4,096 x 4,096 at 2^24 (4 and 4: 212,992 and 213,024 bytes), whose
+// column passes read one sector a row; above 2^24 the passes.
 
 // In place, bins q <= n/2 (at zq) and n - q (at zm; the same place for q
 // = 0 and n/2) of the packed forward spectrum -> the packed whitened
@@ -815,7 +834,7 @@ boot_block(const float2* __restrict__ s1, Load load, int rows, int n,
 // of them the partners n1 - k1 of the other half, so that every bin's
 // mirror n - k lies in the same block.  Up to S * n2 threads.  S = kStrip
 // (16) but in K4b's, K6's and `corr_rows`' row pass at n2 = 2,048, which
-// holds 8.
+// holds 8, and in K4b's and K6's at 4,096, which holds 4.
 
 // Mirror pair t of a row pass's block b (t < pair_tasks(b, n2)), the maps
 // of `fft_real_rows`: bin (r, k2) of a first-half slot (row k1 < n1/2)
@@ -940,9 +959,10 @@ __device__ __forceinline__ void cols_inverse(const float2* yc, float2* buf,
 // rows).  Block 0 of each packed row sets its two maxima to -inf for pass
 // 3.  The rows go back whole, so the strip's width does not set the
 // length of the output's runs as in K4a's pass 2: 16 rows keep a block at
-// n2 threads (8 rows at n2 = 2,048: 1,024 threads, 172 KB), and at n2 <=
-// 256 (kMaxThreads 256) two blocks an SM with up to 128 registers a
-// thread, against spills at 64.
+// n2 threads (8 rows at n2 = 2,048: 1,024 threads, 172 KB; 4 rows at
+// 4,096: 1,024 threads, 192-208 KB), and at n2 <= 256 (kMaxThreads 256)
+// two blocks an SM with up to 128 registers a thread, against spills at
+// 64.
 template <int kMaxThreads, int kMinBlocks, int S>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 boot_rows(const float2* __restrict__ s1, int rows, int n1, int n2, float eps,
@@ -1014,7 +1034,7 @@ cudaError_t boot_rows_launch(const float2* s1, int rows, int n1, int n2,
   const int threads = palt::fft_threads(n2, S);
   const int smem = (n2 / 2 + n1 + n2 + S * (n2 + 1)) * (int)sizeof(float2);
   cudaError_t err;
-  if constexpr (S == palt::kStrip) {  // 8 rows only at n2 = 2,048
+  if constexpr (S == palt::kStrip) {  // 8 or 4 rows at n2 = 2,048, 4,096
     if (n2 <= 256) {
       err = palt::allow_smem<boot_rows<256, 2, S>>();
       if (err != cudaSuccess) return err;
@@ -1032,7 +1052,7 @@ cudaError_t boot_rows_launch(const float2* s1, int rows, int n1, int n2,
 
 // K4b / K6 on the split (n1 > 1) or in one block (n1 = 1) for rows given
 // by load; buf (ceil(rows/2), n) is the split's scratch.  cs: the columns
-// of a column pass's strip, rs: the rows of the row pass's (16 or 8).
+// of a column pass's strip, rs: the rows of the row pass's (16, 8 or 4).
 template <class Load>
 cudaError_t boot_split(const float2* s1, Load load, int rows, int n, int n1,
                        int cs, int rs, float eps, const float2* tw,
@@ -1052,17 +1072,17 @@ cudaError_t boot_split(const float2* s1, Load load, int rows, int n, int n1,
     return cudaGetLastError();
   }
   const int n2 = n / n1;
-  err = with_split_strip(cs, [&](auto strip) {
+  err = with_split_strip<true>(cs, [&](auto strip) {
     return cols_launch<decltype(strip)::value>(load, packed, n1, n2, tw, buf,
                                                s);
   });
   if (err != cudaSuccess) return err;
-  err = with_split_strip(rs, [&](auto strip) {
+  err = with_split_strip<true>(rs, [&](auto strip) {
     return boot_rows_launch<decltype(strip)::value>(s1, rows, n1, n2, eps, tw,
                                                     buf, out, s);
   });
   if (err != cudaSuccess) return err;
-  return with_split_strip(cs, [&](auto strip) {
+  return with_split_strip<true>(cs, [&](auto strip) {
     constexpr int S = decltype(strip)::value;
     const cudaError_t e = palt::allow_smem<boot_cols<S>>();
     if (e != cudaSuccess) return e;
@@ -1117,7 +1137,7 @@ __global__ void last_pass_max(const float2* __restrict__ in,
   }
 }
 
-// ---- K6 above 2^22: the draws in the first radix-2 pass -----------------
+// ---- K6 above 2^24: the draws in the first radix-2 pass -----------------
 
 // The first forward Stockham pass (p = 1, twiddle 1: y[2i] = x[i] +
 // x[i + n/2], y[2i + 1] = their difference) over packed row c = draws 2c
@@ -2860,7 +2880,7 @@ void window_stage(const float2* spec, int scenes, int mics,
                                                 1.0f / (float)n, win, stats);
 }
 
-// K6's pipeline (and K4b's above 2^22) on the radix-2 passes, after buf0
+// K6's pipeline (and K4b's above 2^24) on the radix-2 passes, after buf0
 // holds the rows (packed two to a complex row) with their first `done`
 // forward passes applied: the other
 // forward passes, whitening against s1 in place, the packed inverse with
@@ -2891,12 +2911,12 @@ void boot_stage(const float2* s1, int rows, int n, float eps, int done,
 extern "C" {
 
 // K4a: x (rows, len) -> out (rows, n/2+1) complex, natural order.  n1 = 1:
-// one block per packed row (n <= 4096); n1 = 0 (n > 2^22): the packed
+// one block per packed row (n <= 4096); n1 = 0 (n > 2^24): the packed
 // rows, log2(n) radix-2 passes through buf's two halves of ceil(rows/2)
 // rows each, and `split_spectra`; else the two passes of the four-step
-// split n = n1 * n2 through buf (ceil(rows/2), n) complex, pass 1 with
-// strips of cs (16 or 8) columns, pass 2 with strips of s2 (8, 16, 32 or
-// 64) rows.
+// split n = n1 * n2 through buf (ceil(rows/2), n) complex (n1 < n2 above
+// 2^22), pass 1 with strips of cs (16, 8 or 4) columns, pass 2 with
+// strips of s2 (4, 8, 16, 32 or 64) rows.
 int palt_fft_real(const float* x, int rows, int len, int n, int n1, int cs,
                   int s2, const float2* tw, float2* buf, float2* out,
                   void* stream) {
@@ -2918,7 +2938,7 @@ int palt_fft_real(const float* x, int rows, int len, int n, int n1, int cs,
     return (int)fft_real_block_launch(RowLoad{x, rows, len}, rows, n, tw, out,
                                       s);
   const int n2 = n / n1;
-  const cudaError_t err = with_split_strip(cs, [&](auto strip) {
+  const cudaError_t err = with_split_strip<true>(cs, [&](auto strip) {
     return cols_launch<decltype(strip)::value>(RowLoad{x, rows, len}, packed,
                                                n1, n2, tw, buf, s);
   });
@@ -3033,10 +3053,10 @@ int palt_gcc_windowed(const float* x, int scenes, int mics, int len, int n,
 // K4b: s1 (n/2+1) complex, rows x (rows, len) -> out (rows,) maxima of the
 // PHAT correlations between s1's signal and each row.  n1 = 1: one block
 // per packed row (n <= 4096), no buffer; n1 = 0: the radix-2 passes (n >
-// 2^22) through buf's two halves of ceil(rows/2) rows each; else the three
+// 2^24) through buf's two halves of ceil(rows/2) rows each; else the three
 // launches of the split n = n1 * n2 through buf (ceil(rows/2), n) in
 // place, the column passes with strips of cs columns and the row pass
-// with strips of rs rows (16 or 8 each).
+// with strips of rs rows (16, 8 or 4 each).
 int palt_bootstrap_peaks(const float2* s1, const float* x, int rows, int len,
                          int n, int n1, int cs, int rs, float eps,
                          const float2* tw, float2* buf, float* out,

@@ -18,9 +18,10 @@ delay_sum             bfly_delay_sum (:1851)                 memory: 1 to 8*
 whiten                pallas_kernels.phat_whiten_planes (:34) memory: 16 B/bin
 ===================== ====================================== ==================
 
-(*) Above 2^22 points K4a, K9, K1, K2, K3 and K5 run the radix-2 passes
-(K4a: the packing, log2(nfft) passes and the split into the two spectra,
-2 + log2(nfft) launches).  K1, K2 and K5's GCC take one route a shape
+(*) Above 2^22 points K9, K1, K2, K3 and K5 run the radix-2 passes, and
+K4a, K4b and K6 above 2^24 (K4a: the packing, log2(nfft) passes and the
+split into the two spectra, 2 + log2(nfft) launches).  K1, K2 and K5's
+GCC take one route a shape
 (``gcc_route``): 1 launch in one block a scene, 3 with ``gcc_rows``, 4
 through the mic rows' spectra on the split, 2 through them in one block.
 K3's render and K5's render stage take one route a length
@@ -45,9 +46,10 @@ and the GCCs' ``gcc_rows`` routes run it forward and back in three, the
 middle launch holding rows for both directions; K9, whose input is
 spectra, in two; the GCCs' spectra route K4a's two, then K9's two with a
 pair-indexed loader, and the render's K4a's two into the base rows'
-spectra, then a mix row pass and the column pass; up to 2^22 for K4a,
-K4b, K6, K9 and the GCCs and renders of K1, K2, K3 and K5, whose strips
-narrow to 8 at 2,048, ``split_strips``), so a transform reads
+spectra, then a mix row pass and the column pass; up to 2^22 for K9 and
+the GCCs and renders of K1, K2, K3 and K5, whose strips narrow to 8 at
+2,048, and up to 2^24 for K4a, K4b and K6, whose strips narrow to 4 at
+4,096, ``split_strips``), so a transform reads
 and writes each point once per launch (16 bytes a complex point) and is
 bound by device memory at that.  Up to 4,096 points the bootstraps, K9,
 the render (a packed base row a block) and the all-pairs and windowed
@@ -57,9 +59,9 @@ K3 is one launch there, K2 one or two and K5 two or three.  The others
 run radix-2 Stockham passes over rows in device memory, one launch and
 16 bytes a point per pass, about 16·log2(nfft) bytes per point and
 transform, and fuse their first or last pass into a prologue or
-epilogue: everything above 2^22.  The design
-keeps the rest of the work out of device memory where the TPU kernels
-did: real rows are packed two to a complex transform, the whitening /
+epilogue: everything above 2^22 (for K4a, K4b and K6 above 2^24).
+The design keeps the rest of the work out of device memory where the TPU
+kernels did: real rows are packed two to a complex transform, the whitening /
 ramp synthesis runs in one pass over the spectra, two real results share
 each inverse, and the bootstrap's maxima and the windowed GCC's lag
 window and statistics are taken inside the last inverse pass instead of
@@ -69,7 +71,8 @@ all-pairs GCC, render, windowed-GCC and scene kernels take a leading
 scene axis; a launch covers every scene, and a batch beyond the grids'
 65,535 rows launches over scene chunks (``scene_chunk``, one rule for the
 four kernels).  K4a, K4b, K6 and K9 take a batch of rows beyond their
-grids in chunks of ``ROW_CHUNK`` rows.
+grids in chunks of ``ROW_CHUNK`` rows, K4a, K4b and K6 also in chunks
+whose scratch stays within ``SPLIT_SCRATCH_BYTES`` (``_launch_rows``).
 Measurement noise and the noise-null bootstrap's rows come from a
 counter-based Philox generator (``csrc/philox.cuh``, twin
 ``ops/noise.py``) in place of the TPU core's random bits.
@@ -102,22 +105,24 @@ from . import signal as sig_ops
 
 PHAT_EPS = 1e-10
 # K4a: one block holds the packed row up to this length; the four-step
-# split of two on-chip transforms reaches 2048 x 2048 for K4a, K4b, K6, K9
-# and the GCCs and renders of K1, K2, K3 and K5 (FFT_REAL_MAX), with
-# strips of 8 at 2,048 (``split_strips``), and 1024 x 1024 for the row
+# split of two on-chip transforms reaches 2048 x 2048 for K9 and the GCCs
+# and renders of K1, K2, K3 and K5 (FFT_REAL_MAX), with strips of 8 at
+# 2,048 (``split_strips``), 4096 x 4096 for K4a, K4b and K6
+# (FFT_SPLIT_MAX), with strips of 4 at 4,096, and 1024 x 1024 for the row
 # passes that hold more than one strip (STAGE_SPLIT_MAX): the GCCs'
 # ``gcc_rows`` route and the render's ``render_rows``, whose two strips fit
 # to 2^19; elsewhere the GCCs go through their mic rows' spectra
 # (``gcc_route``) and the render through its base rows' (``render_route``).
 FFT_REAL_ONE_BLOCK = 4096
 FFT_REAL_MAX = 1 << 22
+FFT_SPLIT_MAX = 1 << 24
 STAGE_SPLIT_MAX = 1 << 20
 # Rows a split row pass holds (kStrip, csrc/fft.cuh), the strips K4a's,
-# K4b's and K6's split may take, widest first, the points one block's
-# strip transform holds (kElems * 1024, ``block_fft``) and the shared
-# memory one block may opt in to on an H100 (227 KB).
+# K4b's and K6's split may take, widest first (4 only above 2^22), the
+# points one block's strip transform holds (kElems * 1024, ``block_fft``)
+# and the shared memory one block may opt in to on an H100 (227 KB).
 ROW_STRIP = 16
-SPLIT_STRIPS = (16, 8)
+SPLIT_STRIPS = (16, 8, 4)
 BLOCK_POINTS = 16 * 1024
 SMEM_OPTIN = 232448
 # The spread finish (``finish_groups``): an H100's SMs, the blocks of
@@ -142,6 +147,10 @@ _MAX_GRID_Y = 65535
 # packed row count (two rows a complex transform), at most 65,535.  Even,
 # so that a longer batch packs its rows as one launch would.
 ROW_CHUNK = 2 * _MAX_GRID_Y
+# The scratch one launch of K4a, K4b or K6 may take (``_launch_rows``):
+# 1,000 rows at 2^22 on the split (16.8 GB) keep one launch; 512 rows a
+# launch at 2^23 and 256 at 2^24.
+SPLIT_SCRATCH_BYTES = 16 << 30
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -312,18 +321,31 @@ def _scratch(rows: int, nfft: int, device) -> torch.Tensor:
     return torch.empty((rows, nfft, 2), dtype=torch.float32, device=device)
 
 
-def _row_chunks(rows: int):
-    """(first, last) row of each launch over ``rows`` rows (``ROW_CHUNK``
-    at a time)."""
-    return [(r0, min(r0 + ROW_CHUNK, rows))
-            for r0 in range(0, rows, ROW_CHUNK)]
+def _row_chunks(rows: int, chunk: int = ROW_CHUNK):
+    """(first, last) row of each launch over ``rows`` rows (``chunk`` at a
+    time)."""
+    return [(r0, min(r0 + chunk, rows)) for r0 in range(0, rows, chunk)]
+
+
+def _launch_rows(n1: int, nfft: int) -> int:
+    """Rows a launch of K4a, K4b or K6 takes on schedule n1 at nfft:
+    ``ROW_CHUNK``, and where the schedule has scratch (one buffer of packed
+    rows on the split, two on the passes: ``_pass_scratch``) at most as
+    many as keep it within ``SPLIT_SCRATCH_BYTES``, an even count.  Each
+    packed row pair is transformed on its own and each K6 draw keyed by
+    its own seed words, so the chunks give one launch's bits."""
+    copies = _copies(n1)
+    if not copies:
+        return ROW_CHUNK
+    packed = SPLIT_SCRATCH_BYTES // (copies * nfft * 8)
+    return max(2, min(ROW_CHUNK, 2 * packed))
 
 
 def _split_n1(nfft: int) -> int:
     """n1 of K4a's, K4b's and K6's schedule at nfft: 1, one block, up to
     ``FFT_REAL_ONE_BLOCK``; the four-step split of ``fft_real_split`` up to
-    ``FFT_REAL_MAX`` (2^22); 0, the radix-2 passes, above."""
-    return fft_real_split(nfft)[0] if nfft <= FFT_REAL_MAX else 0
+    ``FFT_SPLIT_MAX`` (2^24); 0, the radix-2 passes, above."""
+    return fft_real_split(nfft)[0] if nfft <= FFT_SPLIT_MAX else 0
 
 
 def _split_strips(n1: int, nfft: int):
@@ -365,15 +387,20 @@ def fft_real_plain(x: torch.Tensor, nfft: int) -> torch.Tensor:
 
 def fft_real_split(nfft: int):
     """(n1, n2) of K4a's four-step split nfft = n1 * n2: (1, nfft) up to
-    ``FFT_REAL_ONE_BLOCK`` (one block holds the packed row), else n2 =
-    2^floor(log2(nfft) / 2) and n1 = nfft / n2 >= n2: both at most 1024 up
-    to ``STAGE_SPLIT_MAX`` (2^20), 2048 x 1024 at 2^21 and 2048 x 2048 at
-    ``FFT_REAL_MAX`` (2^22), where K4a's, K4b's and K6's strips narrow to
-    8 (``split_strips``)."""
+    ``FFT_REAL_ONE_BLOCK`` (one block holds the packed row); up to
+    ``FFT_REAL_MAX`` n2 = 2^floor(log2(nfft) / 2) and n1 = nfft / n2 >=
+    n2: both at most 1024 up to ``STAGE_SPLIT_MAX`` (2^20), 2048 x 1024 at
+    2^21 and 2048 x 2048 at 2^22, where K4a's, K4b's and K6's strips narrow
+    to 8 (``split_strips``); above, the long side goes to the contiguous
+    rows, n1 = 2^floor(log2(nfft) / 2) <= n2: 2048 x 4096 at 2^23 (column
+    strips of 8 still read 64 bytes a row, row strips of 4) and 4096 x
+    4096 at ``FFT_SPLIT_MAX`` (2^24, strips of 4)."""
     if nfft <= FFT_REAL_ONE_BLOCK:
         return 1, nfft
-    n2 = 1 << ((nfft.bit_length() - 1) // 2)
-    return nfft // n2, n2
+    short = 1 << ((nfft.bit_length() - 1) // 2)
+    if nfft > FFT_REAL_MAX:
+        return short, nfft // short
+    return nfft // short, short
 
 
 def fft_real_rows_strip(n2: int, packed: int) -> int:
@@ -381,11 +408,11 @@ def fft_real_rows_strip(n2: int, packed: int) -> int:
     n1 - k1 of the other half; its output runs of consecutive bins are half
     as long.  64 (n2 <= 256) or 32 (n2 <= 512), the most one block's shared
     memory holds, where there are enough packed rows (>= 64) that fewer
-    blocks still fill the card; 8 at n2 = 2,048 (2^22), where 16 rows would
-    pass ``BLOCK_POINTS``; else 16 (a single row's call is bound by
-    latency, not bytes)."""
+    blocks still fill the card; where 16 rows would pass ``BLOCK_POINTS``
+    the most it holds, 8 at n2 = 2,048 (2^22) and 4 at 4,096 (2^23, 2^24);
+    else 16 (a single row's call is bound by latency, not bytes)."""
     if n2 * ROW_STRIP > BLOCK_POINTS:
-        return 8
+        return BLOCK_POINTS // n2
     if packed < 64 or n2 > 512:
         return 16
     return 64 if n2 <= 256 else 32
@@ -403,7 +430,7 @@ def _row_pass_smem(n1: int, n2: int, strips: int,
 def split_strips(n1: int, n2: int):
     """(columns a strip of a column pass holds, rows a strip of the row
     pass holds) on K4a's, K4b's and K6's split n1 x n2: for each, the
-    widest of ``SPLIT_STRIPS`` (16, 8) whose strip holds at most
+    widest of ``SPLIT_STRIPS`` (16, 8, 4) whose strip holds at most
     ``BLOCK_POINTS`` points (``block_fft``'s kElems x 1024) and whose pass
     fits one block's shared memory (``SMEM_OPTIN``): the column pass's
     n1/2 sub-twiddles, n1 + n2 split tables and n1 x S strip
@@ -411,7 +438,10 @@ def split_strips(n1: int, n2: int):
     of one strip (``boot_rows``; K4a's own row pass takes
     ``fft_real_rows_strip``).  (16, 16) up to 1024 x 1024, so every
     shape up to 2^20 keeps its strips; (8, 16) at 2048 x 1024 (2^21) and
-    (8, 8) at 2048 x 2048 (2^22): 164-172 KB a block."""
+    (8, 8) at 2048 x 2048 (2^22): 164-172 KB a block; (8, 4) at 2048 x
+    4096 (2^23: 188,416 and 196,640 bytes) and (4, 4) at 4096 x 4096
+    (2^24: 212,992 and 213,024), whose column strips read one 32-byte
+    sector a row."""
     def widest(length, smem):
         for strip in SPLIT_STRIPS:
             if length * strip <= BLOCK_POINTS and smem(strip) <= SMEM_OPTIN:
@@ -532,13 +562,13 @@ def finish_groups(nfft: int, rows: int) -> int:
 
 
 def corr_schedule(nfft: int) -> int:
-    """n1 of K9's schedule at nfft, K4a's (``_split_n1``): 1, one block a
+    """n1 of K9's schedule at nfft, K4a's up to 2^22: 1, one block a
     packed row (``corr_block``), up to ``FFT_REAL_ONE_BLOCK``; the
     four-step split of ``fft_real_split`` up to ``FFT_REAL_MAX`` (2^22; its
     row pass holds one strip, of 16 rows or 8 at n2 = 2,048, and its column
     pass strips of 16 columns or 8 at n1 = 2,048: ``split_strips``); 0, the
-    radix-2 passes, above."""
-    return _split_n1(nfft)
+    radix-2 passes, above (where K4a's split goes on to 2^24)."""
+    return fft_real_split(nfft)[0] if nfft <= FFT_REAL_MAX else 0
 
 
 def _copies(n1: int) -> int:
@@ -611,16 +641,17 @@ def fft_real(x: torch.Tensor, nfft: int) -> torch.Tensor:
     Replaces ``bfly_fft_real`` (pyaudiolocalization_tpu/ops/pallas_fft.py:
     685), whose output is an opaque bit-reversed (N2, 128) plane layout.
     Two rows share each complex transform.  By length (``_split_n1``): up
-    to nfft = 4096 one launch, a block per packed row; up to 2^22 a
+    to nfft = 4096 one launch, a block per packed row; up to 2^24 a
     four-step split (``fft_real_split``) of two on-chip launches, the
-    columns' DFTs with the twiddle (strips of 16 columns, 8 at n1 = 2,048:
-    ``split_strips``), then the rows' DFTs with the two real spectra split
-    in the epilogue (``fft_real_rows_strip``); above, the packed rows, the
-    log2(nfft) radix-2 passes through device memory (one launch a pass)
-    and the split into the two spectra.  Bound by device memory: the rows'
-    read, one write and one read of the packed intermediate (a pass) and
-    the spectra's write.  A batch beyond ``ROW_CHUNK`` rows launches in
-    chunks."""
+    columns' DFTs with the twiddle (strips of 16 columns, 8 at n1 = 2,048,
+    4 at 4,096: ``split_strips``), then the rows' DFTs with the two real
+    spectra split in the epilogue (``fft_real_rows_strip``); above, the
+    packed rows, the log2(nfft) radix-2 passes through device memory (one
+    launch a pass) and the split into the two spectra.  Bound by device
+    memory: the rows' read, one write and one read of the packed
+    intermediate (a pass) and the spectra's write.  A batch beyond
+    ``_launch_rows`` rows (``ROW_CHUNK``, or the scratch's byte cap)
+    launches in chunks."""
     if _use_plain(x):
         return fft_real_plain(x, nfft)
     _check_contiguous("fft_real", x)
@@ -635,17 +666,17 @@ def fft_real(x: torch.Tensor, nfft: int) -> torch.Tensor:
     out = torch.empty((rows, nfft // 2 + 1), dtype=torch.complex64,
                       device=dev)
     n1 = _split_n1(nfft)
-    n2 = nfft // n1 if n1 else nfft
     cols = _split_strips(n1, nfft)[0]
-    chunks = _row_chunks(rows)
+    chunks = _row_chunks(rows, _launch_rows(n1, nfft))
     packed = (chunks[0][1] + 1) // 2 if chunks else 0
     buf = _pass_scratch(n1, packed, nfft, dev)
     tw = _twiddles(nfft, str(dev))
     for r0, r1 in chunks:
         _launch("fft_real", dev, lib.palt_fft_real, x[r0].data_ptr(),
                 r1 - r0, length, nfft, n1, cols,
-                fft_real_rows_strip(n2, (r1 - r0 + 1) // 2), tw.data_ptr(),
-                _ptr(buf), out[r0].data_ptr())
+                fft_real_rows_strip(nfft // n1, (r1 - r0 + 1) // 2)
+                if n1 > 1 else 0, tw.data_ptr(), _ptr(buf),
+                out[r0].data_ptr())
     return out
 
 
@@ -979,20 +1010,22 @@ def bootstrap_peaks(s1: torch.Tensor, rows: torch.Tensor, nfft: int,
 
     - nfft <= ``FFT_REAL_ONE_BLOCK`` (4096): one launch, a block per
       packed row holding every step in shared memory, no scratch;
-    - up to ``FFT_REAL_MAX`` (2^22): three launches over one scratch
+    - up to ``FFT_SPLIT_MAX`` (2^24): three launches over one scratch
       buffer, K4a's split nfft = n1 * n2 (``fft_real_split``) forward and
       back: K4a's column pass; a row pass (16 rows a block, 8 at n2 =
-      2,048) that runs the forward row DFTs, the whitening, the inverse
-      row DFTs and the inverse twiddle in shared memory and writes back in
-      place; and a column pass whose inverse column DFTs end in the
-      maxima (the column passes' strips 16 columns, 8 at n1 = 2,048:
-      ``split_strips``);
+      2,048, 4 at 4,096) that runs the forward row DFTs, the whitening, the
+      inverse row DFTs and the inverse twiddle in shared memory and writes
+      back in place; and a column pass whose inverse column DFTs end in
+      the maxima (the column passes' strips 16 columns, 8 at n1 = 2,048,
+      4 at 4,096: ``split_strips``);
     - above: the radix-2 passes through device memory (one launch a
       pass), ping-ponging in a scratch buffer of twice the packed rows.
 
     Bound by device memory: the rows' read and, on the split, two reads
     and two writes of the packed buffer (32 bytes a point of the packed
-    rows).  A batch beyond ``ROW_CHUNK`` rows launches in chunks."""
+    rows).  A batch beyond ``_launch_rows`` rows (``ROW_CHUNK``, or as
+    many as keep the scratch within ``SPLIT_SCRATCH_BYTES``: 512 rows at
+    2^23, 256 at 2^24) launches in chunks, with one launch's peaks."""
     if _use_plain(s1, rows):
         return bootstrap_peaks_plain(s1, rows, nfft, eps)
     _check_contiguous("bootstrap_peaks", s1, rows)
@@ -1009,7 +1042,7 @@ def bootstrap_peaks(s1: torch.Tensor, rows: torch.Tensor, nfft: int,
     out = torch.empty(num, dtype=torch.float32, device=dev)
     n1 = _split_n1(nfft)
     cols, strip = _split_strips(n1, nfft)
-    chunks = _row_chunks(num)
+    chunks = _row_chunks(num, _launch_rows(n1, nfft))
     buf = _pass_scratch(n1, (chunks[0][1] + 1) // 2, nfft, dev)
     tw = _twiddles(nfft, str(dev))
     for r0, r1 in chunks:
@@ -1042,7 +1075,7 @@ def noise_bootstrap_peaks(s1: torch.Tensor, seeds: torch.Tensor,
 
     Replaces ``bfly_noise_bootstrap_peaks`` (pyaudiolocalization_tpu/ops/
     pallas_fft.py:1326): K4b's schedules (``bootstrap_peaks``: one launch
-    up to 4096, three on the four-step split up to 2^22 with K4b's strips,
+    up to 4096, three on the four-step split up to 2^24 with K4b's strips,
     the radix-2 passes above) with its row load replaced by the draw, made
     where the first forward step reads the point (two draws per complex
     transform), so the rows never exist in device memory and no
@@ -1050,8 +1083,8 @@ def noise_bootstrap_peaks(s1: torch.Tensor, seeds: torch.Tensor,
     equal ``bootstrap_peaks`` of ``noise_ops.uniform(seeds, n_samp)``
     bit for bit on the split and in one block.  Bound by device memory
     (one write and two reads of the packed buffer on the split) and the
-    Philox rounds.  A batch beyond ``ROW_CHUNK`` draws launches in
-    chunks."""
+    Philox rounds.  A batch beyond ``_launch_rows`` draws launches in
+    chunks (K4b's), each draw keyed by its own seed words."""
     if _use_plain(s1, seeds):
         return noise_bootstrap_peaks_plain(s1, seeds, n_samp, nfft, eps)
     _check_contiguous("noise_bootstrap_peaks", s1, seeds)
@@ -1068,7 +1101,7 @@ def noise_bootstrap_peaks(s1: torch.Tensor, seeds: torch.Tensor,
     out = torch.empty(num, dtype=torch.float32, device=dev)
     n1 = _split_n1(nfft)
     cols, strip = _split_strips(n1, nfft)
-    chunks = _row_chunks(num)
+    chunks = _row_chunks(num, _launch_rows(n1, nfft))
     buf = _pass_scratch(n1, (chunks[0][1] + 1) // 2, nfft, dev)
     tw = _twiddles(nfft, str(dev))
     for r0, r1 in chunks:

@@ -89,19 +89,26 @@ def test_fft_real_kernel_matches_plain(cuda, rows, length, nfft):
     assert float((got - want).abs().max()) < 5e-6 * float(want.abs().max())
 
 
+# K4a's, K4b's and K6's n1 above 2^20: the split to 2^24 (the long side in
+# the rows above 2^22), the radix-2 passes above.
+LONG_N1 = {1 << 21: 2048, 1 << 22: 2048, 1 << 23: 2048, 1 << 24: 4096,
+           1 << 25: 0}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,length,nfft", [
     (2, 1_046_019, 1 << 21), (3, 1_046_019, 1 << 21), (1, 2_000_000, 1 << 22),
-    (3, 4_000_000, 1 << 23)])
+    (3, 4_000_000, 1 << 23), (1, 8_400_000, 1 << 24), (2, 600_000, 1 << 25)])
 def test_fft_real_runs_the_passes_above_2_20(cuda, rows, length, nfft):
     """Above 2^20 K4a runs the four-step split with strips of 8 columns
     (``split_strips``) at 2^21 (a 23.7 s recording at 44.1 kHz, the
     bootstrap's spectrum; 2,048 x 1,024) and 2^22 (2,048 x 2,048, pass 2's
-    strips 8 rows), and above the largest split (2^22) packs the rows,
-    runs the radix-2 passes (one launch a pass) and splits the two
-    spectra (2^23): each against its twin, relative to the spectrum's
-    peak."""
-    assert cf._split_n1(nfft) == (2048 if nfft <= cf.FFT_REAL_MAX else 0)
+    strips 8 rows), with the long side in the rows at 2^23 (2,048 x 4,096,
+    pass 2's strips 4 rows) and 2^24 (4,096 x 4,096, 4 columns, 4 rows),
+    and above its largest split (2^24) packs the rows, runs the radix-2
+    passes (one launch a pass) and splits the two spectra (2^25): each
+    against its twin, relative to the spectrum's peak."""
+    assert cf._split_n1(nfft) == LONG_N1[nfft]
     x = torch.randn((rows, length), generator=_gen(cuda), device=cuda)
     before = cf.LAUNCHES["fft_real"]
     got = cf.fft_real(x, nfft)
@@ -183,9 +190,9 @@ def test_device_kernels_per_call(cuda, tmp_path):
     row pass with the cross-spectra, the column pass with the window and
     the statistics) and K5 seven (K3's and K2's without K2's separate
     signals); K10a and K10b one kernel per transform, K10c one a call.
-    Above 2^20 (two rows of a 23.7 s pair at 2^21, three at 2^22) K4a
-    runs its two kernels with strips of 8 columns and K4b and K6 their
-    three, not the radix-2 passes."""
+    Above 2^20 (two rows of a 23.7 s pair at 2^21, three at 2^22 and
+    2^23, one at 2^24) K4a runs its two kernels with strips of 8 columns
+    (4 at 2^24) and K4b and K6 their three, not the radix-2 passes."""
     from pyaudiolocalization_tpu_torch.ops import rowdft as rd
     x = torch.randn((2, 44100), generator=_gen(cuda), device=cuda)
     names = _device_kernels(lambda: cf.fft_real(x, 65536),
@@ -221,7 +228,9 @@ def test_device_kernels_per_call(cuda, tmp_path):
         tmp_path / "k6_small.json")
     assert len(names) == 1 and "boot_block" in names[0], names
     for rows, length, nfft in ((2, 1_046_019, 1 << 21),
-                               (3, 2_000_000, 1 << 22)):
+                               (3, 2_000_000, 1 << 22),
+                               (3, 4_200_000, 1 << 23),
+                               (1, 8_400_000, 1 << 24)):
         xl = torch.randn((rows, length), generator=_gen(cuda),
                          device=cuda)
         names = _device_kernels(lambda: cf.fft_real(xl, nfft),
@@ -290,13 +299,15 @@ def test_device_kernels_per_call(cuda, tmp_path):
     (999, 3000, 4096), (1, 100, 128), (64, 44100, 65536), (2, 44100, 65536),
     (1000, 44100, 131072), (1, 3, 4), (3, 200000, 1 << 18),
     (3, 600000, 1 << 20), (3, 100000, 1 << 21), (64, 1_046_019, 1 << 21),
-    (3, 2_000_000, 1 << 22), (3, 100000, 1 << 23)])
+    (3, 2_000_000, 1 << 22), (3, 100000, 1 << 23), (3, 100000, 1 << 24),
+    (3, 100000, 1 << 25)])
 def test_bootstrap_peaks_kernel_matches_plain(cuda, rows, length, nfft):
     """One block (nfft <= 4096), the three launches of the split (n2 =
     256 at 65,536 and 131,072 with 2 and 1000 rows, n2 = 512 at 2^18 and
     1024 x 1024 at 2^20, whose row pass runs 512 and 1024 threads; at 2^21
-    strips of 8 columns, at 2^22 8 columns and 8 rows) and the radix-2
-    passes above 2^22."""
+    strips of 8 columns, at 2^22 8 columns and 8 rows, at 2^23 8 columns
+    and 4 rows of 4,096, at 2^24 4 and 4) and the radix-2 passes above
+    2^24."""
     g = _gen(cuda)
     s1 = cf.fft_real_plain(torch.randn((1, length), generator=g,
                                        device=cuda), nfft)[0].contiguous()
@@ -314,7 +325,9 @@ def test_bootstrap_peaks_kernel_matches_plain(cuda, rows, length, nfft):
                                               (3, 100, 128),
                                               (3, 100000, 1 << 21),
                                               (3, 2_000_000, 1 << 22),
-                                              (3, 100000, 1 << 23)])
+                                              (3, 100000, 1 << 23),
+                                              (3, 100000, 1 << 24),
+                                              (3, 100000, 1 << 25)])
 def test_noise_bootstrap_peaks_kernel_matches_plain(cuda, rows, n_samp, nfft):
     """K6: the twin's integers are the same on the card and the CPU, and the
     kernel's peaks equal the twin's (odd draw counts; n_samp <= nfft/2 is
@@ -340,7 +353,9 @@ def test_noise_bootstrap_peaks_kernel_matches_plain(cuda, rows, n_samp, nfft):
 @pytest.mark.parametrize("rows,n_samp,nfft", [(1000, 44100, 65536),
                                               (999, 1500, 4096),
                                               (3, 100000, 131072),
-                                              (2, 6000, 8192), (3, 100, 128)])
+                                              (2, 6000, 8192), (3, 100, 128),
+                                              (3, 100000, 1 << 23),
+                                              (3, 100000, 1 << 24)])
 def test_noise_bootstrap_equals_bootstrap_on_its_draws(cuda, rows, n_samp,
                                                        nfft):
     """K6 runs K4b's schedules (one block up to 4096, the split above) with
@@ -356,6 +371,47 @@ def test_noise_bootstrap_equals_bootstrap_on_its_draws(cuda, rows, n_samp,
     want = cf.bootstrap_peaks(s1, noise_ops.uniform(seeds, n_samp), nfft)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_bootstrap_chunks_by_bytes_keep_one_launch_bits(cuda, monkeypatch):
+    """K6 at the default 1,000 draws of 2^23 takes two launches (512 and
+    488 draws) whose scratch stays within ``SPLIT_SCRATCH_BYTES``; with the
+    cap lowered to 8 rows a launch, K6, K4b and K4a at 2^23 give one
+    launch's bits (each packed row pair on its own, each draw keyed by
+    its own seed words), and K6 stays bit-equal to K4b on the same
+    draws."""
+    nfft, n_samp = 1 << 23, 4_200_000
+    g = _gen(cuda, 5)
+    s1 = cf.fft_real_plain(torch.randn((1, n_samp), generator=g,
+                                       device=cuda), nfft)[0].contiguous()
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (1000, 2), generator=g,
+                          dtype=torch.int32, device=cuda)
+    cf.fft_real(s1.real[None, :16].contiguous(), nfft)   # twiddles cached
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = cf.LAUNCHES["noise_bootstrap_peaks"]
+    full = cf.noise_bootstrap_peaks(s1, seeds, n_samp, nfft)
+    torch.cuda.synchronize()
+    assert cf.LAUNCHES["noise_bootstrap_peaks"] == before + 2
+    assert torch.cuda.max_memory_allocated() - base <= (
+        cf.SPLIT_SCRATCH_BYTES + (1 << 20))
+    assert bool(torch.isfinite(full).all())
+    draws = noise_ops.uniform(seeds[:20], n_samp)
+    x = torch.randn((11, n_samp), generator=g, device=cuda)
+    boot = cf.bootstrap_peaks(s1, draws, nfft)
+    spec = cf.fft_real(x, nfft)
+    monkeypatch.setattr(cf, "SPLIT_SCRATCH_BYTES", 4 * nfft * 8)
+    before = dict(cf.LAUNCHES)
+    assert torch.equal(cf.noise_bootstrap_peaks(s1, seeds[:20], n_samp,
+                                                nfft), full[:20])
+    assert torch.equal(cf.bootstrap_peaks(s1, draws, nfft), boot)
+    assert torch.equal(boot, full[:20])
+    assert torch.equal(cf.fft_real(x, nfft), spec)
+    for name, launches in (("noise_bootstrap_peaks", 3),
+                           ("bootstrap_peaks", 3), ("fft_real", 2)):
+        assert cf.LAUNCHES[name] == before[name] + launches, name
 
 
 @pytest.mark.cuda

@@ -11,15 +11,17 @@ indices so that a wrong map shows before the card sees it:
   i + m*L/R with the twiddle index e = m*k*L/(pR) (k = i mod p) into the
   half table, sign flipped for e >= L/2, and writing (i - k)*R + k + m*p;
   the 8- and 16-point DFTs split into DFT-4s in registers;
-- K4a: the n1 x n2 split (``cuda_fft.fft_real_split``) up to 2^22, pass 1
-  over strips of S = 16 columns (``kStrip``; 8 at n1 = 2,048,
-  ``cuda_fft.split_strips``) with the twiddle W_n^{j2 k1} (e = j2*k1 <
-  n) as W_n2^{e / n1} * W_n^{e mod n1}, pass 2's blocks of 8, 16, 32 or
-  64 rows k1 (``cuda_fft.fft_real_rows_strip``) and their partners n1 -
-  k1 (row n1/2 in the slot of row 0's) and the k2 maps of the Hermitian
-  split, DC and Nyquist; one block for n <= 4096;
-- K4b: K4a's pass 1; pass 2's blocks of 16 rows (8 at n2 = 2,048; any
-  even strip in the model), their forward row DFTs, the whitening task by
+- K4a: the n1 x n2 split (``cuda_fft.fft_real_split``) up to 2^24 (n1
+  < n2 above 2^22), pass 1 over strips of S = 16 columns (``kStrip``; 8
+  at n1 = 2,048, 4 at 4,096, ``cuda_fft.split_strips``) with the twiddle
+  W_n^{j2 k1} (e = j2*k1 < n) as W_n2^{e / n1} * W_n^{e mod n1}, pass
+  2's blocks of 4, 8, 16, 32 or 64 rows k1
+  (``cuda_fft.fft_real_rows_strip``) and their partners n1 - k1 (row
+  n1/2 in the slot of row 0's) and the k2 maps of the Hermitian split,
+  DC and Nyquist; one block for n <= 4096;
+- K4b: K4a's pass 1; pass 2's blocks of 16 rows (8 at n2 = 2,048, 4 at
+  4,096; any even strip in the model), their forward row DFTs, the
+  whitening task by
   task (a mirror
   pair of bins against s1 at the lower bin, imaginary parts dropped at
   DC and Nyquist; row 0's and row n1/2's own pairs in block 0 with one
@@ -222,7 +224,8 @@ def fft_real_model(x, n):
         out[0::2], out[1::2] = _split_bin(zk, zm, 0), _split_bin(zk, zm, 1)
         writes += 1
         return out[:rows], writes[:rows]
-    assert n1 * n2 == n and n1 >= n2 and n1 <= 2048 and n1 % 32 == 0
+    assert n1 * n2 == n and n1 <= 4096 and n1 % 32 == 0
+    assert n1 >= n2 or n > cf.FFT_REAL_MAX    # the long side in the rows
     y = _cols_pass(z, n1, n2, cf.split_strips(n1, n2)[0])
     # Pass 2 (fft_real_rows): block b holds rows pair_row(b, r), r < S2,
     # all blocks at once; then each (block, slot r, k2) of the epilogue.
@@ -407,6 +410,28 @@ def test_fft_real_schedule_wide_strips(n, strip, monkeypatch):
     assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
 
 
+@pytest.mark.parametrize("bits,rows", [(23, 1), (23, 2), (24, 2)])
+def test_fft_real_schedule_above_2_22(bits, rows):
+    """2^23 (2,048 x 4,096: the long side in the rows, pass 1's strips of 8
+    columns, pass 2's of 4 rows) and 2^24 (4,096 x 4,096: 4 columns, 4
+    rows), K4a's split past K9's and the GCCs' (``FFT_REAL_MAX``), against
+    np.fft.rfft, one and two rows (one packed row): each bin written
+    exactly once, DC and Nyquist exactly real."""
+    n = 1 << bits
+    n1, n2 = cf.fft_real_split(n)
+    assert (n1, n2) == ((2048, 4096) if bits == 23 else (4096, 4096))
+    assert cf._split_n1(n) == n1 and cf.corr_schedule(n) == 0
+    assert cf.split_strips(n1, n2) == ((8, 4) if bits == 23 else (4, 4))
+    assert cf.fft_real_rows_strip(n2, 1) == 4
+    x = _rows(np.random.default_rng(bits + 10 * rows), rows,
+              n - n // 4 - 1)
+    got, writes = fft_real_model(x, n)
+    want = np.fft.rfft(x, n=n)
+    assert np.array_equal(writes, np.ones_like(writes))
+    assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
+    assert not got[:, 0].imag.any() and not got[:, -1].imag.any()
+
+
 @pytest.mark.parametrize("bits,rows", [(21, 1), (21, 3), (22, 1), (22, 2)])
 def test_fft_real_schedule_above_2_20(bits, rows):
     """2^21 (2,048 x 1,024: pass 1's strips of 8 columns, pass 2's of 16
@@ -471,6 +496,17 @@ def test_bootstrap_schedule_largest_split():
     _check_boot(*_boot_case(np.random.default_rng(22), 1, n), n)
 
 
+@pytest.mark.parametrize("bits", [23, 24])
+def test_bootstrap_schedule_above_2_22(bits):
+    """K4b's split past 2^22, the long side in the rows: 2^23 (2,048 x
+    4,096: column strips of 8, ``boot_rows``' of 4 rows, 2 rows k1 and
+    their partners) and 2^24 (4,096 x 4,096: 4 and 4), at one row."""
+    n = 1 << bits
+    assert cf._split_n1(n) == cf.fft_real_split(n)[0]
+    assert cf.split_strips(*cf.fft_real_split(n))[1] == 4
+    _check_boot(*_boot_case(np.random.default_rng(bits), 1, n), n)
+
+
 @pytest.mark.parametrize("bits", [20, 21])
 def test_bootstrap_schedule_long_splits(bits):
     """2^20 (1,024 x 1,024, the largest split of strips of 16) and 2^21
@@ -504,20 +540,25 @@ def test_fft_real_split_choice(n):
         assert cf.fft_real_rows_strip(n2, 63) == 16
         assert n1 % cf.fft_real_rows_strip(n2, 64) == 0
     assert cf.fft_real_split(cf.FFT_REAL_MAX) == (2048, 2048)
+    assert cf.fft_real_split(2 * cf.FFT_REAL_MAX) == (2048, 4096)
+    assert cf.fft_real_split(cf.FFT_SPLIT_MAX) == (4096, 4096)
 
 
 @pytest.mark.parametrize("n,strips,rows_strip", [
     (8192, (16, 16), 16), (1 << 16, (16, 16), 16), (1 << 18, (16, 16), 16),
-    (1 << 20, (16, 16), 16), (1 << 21, (8, 16), 16), (1 << 22, (8, 8), 8)])
+    (1 << 20, (16, 16), 16), (1 << 21, (8, 16), 16), (1 << 22, (8, 8), 8),
+    (1 << 23, (8, 4), 4), (1 << 24, (4, 4), 4)])
 def test_split_strips_rule(n, strips, rows_strip):
     """K4a's, K4b's and K6's strips (``split_strips``): 16 columns and 16
     rows up to n1 = 1,024 (every shape up to 2^20 keeps its strips), 8
-    columns at n1 = 2,048 and 8 rows at n2 = 2,048; K4a's pass 2 8 rows at
-    n2 = 2,048.  Each strip holds at most ``BLOCK_POINTS`` points and its
-    pass fits one block's shared memory (the kernels' byte counts); 16
-    does not fit where 8 is taken.  The split reaches 2^22 for these three
-    kernels and for K9 and K1 (K9's schedule is theirs), and 2^20 for the
-    others (``STAGE_SPLIT_MAX``)."""
+    columns at n1 = 2,048 and 8 rows at n2 = 2,048, 4 at 4,096 (2^23's
+    rows, both of 2^24's); K4a's pass 2 8 rows at n2 = 2,048 and 4 at
+    4,096.  Each strip holds at most ``BLOCK_POINTS`` points and its pass
+    fits one block's shared memory (the kernels' byte counts); the next
+    wider strip does not fit where a narrower one is taken.  The split
+    reaches 2^24 for these three kernels, 2^22 for K9 and K1 (K9's
+    schedule is theirs up to there), and 2^20 for the others
+    (``STAGE_SPLIT_MAX``)."""
     n1, n2 = cf.fft_real_split(n)
     assert cf.split_strips(n1, n2) == strips
     assert cf.fft_real_rows_strip(n2, 1) == rows_strip
@@ -527,16 +568,17 @@ def test_split_strips_rule(n, strips, rows_strip):
     assert 8 * (n1 // 2 + n1 + n2 + n1 * cs) <= cf.SMEM_OPTIN
     assert 8 * (n2 // 2 + n1 + n2 + rs * (n2 + 1)) <= cf.SMEM_OPTIN
     assert 8 * (n2 // 2 + rows_strip * (n2 + 1)) <= cf.SMEM_OPTIN
-    if cs == 8:
-        assert n1 * 16 > cf.BLOCK_POINTS
-    if rs == 8:
-        assert n2 * 16 > cf.BLOCK_POINTS
+    if cs < 16:
+        assert n1 * 2 * cs > cf.BLOCK_POINTS
+    if rs < 16:
+        assert n2 * 2 * rs > cf.BLOCK_POINTS
     assert cf._split_n1(n) == n1
     assert cf._split_strips(n1, n) == strips
-    assert cf.corr_schedule(n) == n1
-    assert cf._split_n1(2 * cf.FFT_REAL_MAX) == 0
-    assert cf._split_strips(0, 2 * cf.FFT_REAL_MAX) == (0, 0)
+    assert cf.corr_schedule(n) == (n1 if n <= cf.FFT_REAL_MAX else 0)
+    assert cf._split_n1(2 * cf.FFT_SPLIT_MAX) == 0
+    assert cf._split_strips(0, 2 * cf.FFT_SPLIT_MAX) == (0, 0)
     assert cf.STAGE_SPLIT_MAX == 1 << 20 and cf.FFT_REAL_MAX == 1 << 22
+    assert cf.FFT_SPLIT_MAX == 1 << 24
 
 
 @pytest.mark.parametrize("n2", [64, 128, 256, 512, 1024])
@@ -1656,8 +1698,10 @@ def test_gcc_schedule_rule(n, mics, want):
 def test_corr_schedule_rule(n, want):
     """K9's schedule (``corr_schedule``): one block up to 4,096, K4a's
     split up to 2^22 (its row pass's one strip of ``split_strips`` fits at
-    every split: 16 rows, 8 at 2,048 x 2,048), the passes above."""
-    assert cf.corr_schedule(n) == want == cf._split_n1(n)
+    every split: 16 rows, 8 at 2,048 x 2,048), the passes above, where
+    K4a's split goes on to 2^24."""
+    assert cf.corr_schedule(n) == want == (
+        cf._split_n1(n) if n <= cf.FFT_REAL_MAX else 0)
     if 1 < want:
         rows = cf.split_strips(want, n // want)[1]
         assert cf._row_pass_smem(want, n // want, 1, rows) <= cf.SMEM_OPTIN

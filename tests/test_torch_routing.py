@@ -4,8 +4,10 @@ returns False), the kernel library is a stub, and every launch through
 ``cuda_fft._launch`` is recorded with its arguments instead of run.  The
 outputs are left as allocated, so these tests read the launches only.
 
-They hold K4a's, K4b's, K6's and K9's split up to 2^22 (strips of 8 at
-2,048) and their radix-2 passes above, the GCC routes of K1, K2 and K5
+They hold K4a's, K4b's and K6's split up to 2^24 (strips of 8 at 2,048,
+of 4 at 4,096) and their radix-2 passes above, K9's split up to 2^22 and
+its passes above, the byte cap on the split's scratch (``_launch_rows``),
+the GCC routes of K1, K2 and K5
 (``gcc_route``: one block a scene, ``gcc_rows``, the mic rows' spectra on
 the split and in one block) on both sides of every fit limit and the
 passes above 2^22 alone, K3's passes from 2^20, the row chunks of K4a,
@@ -61,7 +63,7 @@ def _named(calls, name):
 
 
 # ---------------------------------------------------------------------------
-# K4a, K4b and K6 above 2^20: the split to 2^22, the passes above
+# K4a, K4b and K6 above 2^20: the split to 2^24, the passes above
 # ---------------------------------------------------------------------------
 
 def test_spectrum_above_2_20_launches_k4a_on_the_radix2_passes(launches):
@@ -79,13 +81,29 @@ def test_spectrum_above_2_20_launches_k4a_on_the_radix2_passes(launches):
     assert [n for n, _ in launches] == ["fft_real"]
 
 
-def test_spectrum_above_2_22_launches_k4a_on_the_radix2_passes(launches):
-    """At nfft 2^23, past the largest split (2^22), K4a's launch takes the
-    radix-2 passes (n1 = 0)."""
-    spec = ttdoa._spectrum(torch.zeros(4_200_000), 1 << 23)
-    assert spec.shape == ((1 << 22) + 1,)
+@pytest.mark.parametrize("length,bits,n1,strips", [
+    (4_200_000, 23, 2048, (8, 4)), (8_400_000, 24, 4096, (4, 4))])
+def test_spectrum_at_2_23_and_2_24_launches_k4a_on_the_split(
+        launches, length, bits, n1, strips):
+    """sig1's spectrum at nfft 2^23 (a 47.5 s recording at 44.1 kHz under
+    ``max_expected_delay=None``) and 2^24 (95 s) reaches one K4a launch on
+    the split, the long side in the rows: 2,048 x 4,096 with strips of 8
+    columns and pass-2 strips of 4 rows, and 4,096 x 4,096 with 4 and 4."""
+    spec = ttdoa._spectrum(torch.zeros(length), 1 << bits)
+    assert spec.shape == ((1 << (bits - 1)) + 1,)
     (args,) = _named(launches, "fft_real")
-    assert args[1:5] == (1, 4_200_000, 1 << 23, 0)
+    assert args[1:5] == (1, length, 1 << bits, n1)
+    assert args[5:7] == strips
+    assert [n for n, _ in launches] == ["fft_real"]
+
+
+def test_spectrum_above_2_22_launches_k4a_on_the_radix2_passes(launches):
+    """At nfft 2^25, past K4a's largest split (``FFT_SPLIT_MAX``, 2^24),
+    K4a's launch takes the radix-2 passes (n1 = 0)."""
+    spec = ttdoa._spectrum(torch.zeros(600_000), 1 << 25)
+    assert spec.shape == ((1 << 24) + 1,)
+    (args,) = _named(launches, "fft_real")
+    assert args[1:5] == (1, 600_000, 1 << 25, 0)
 
 
 @pytest.mark.parametrize("mode,kernel", [("permutation", "bootstrap_peaks"),
@@ -106,30 +124,61 @@ def test_bootstrap_at_2_21_runs_both_nulls_on_the_passes(launches, mode,
     assert args[2:8] == (4, 600_000, 1 << 21, 2048, 8, 16)
 
 
+@pytest.mark.parametrize("bits,n1,strips", [(23, 2048, (8, 4)),
+                                            (24, 4096, (4, 4))])
+@pytest.mark.parametrize("mode,kernel", [("permutation", "bootstrap_peaks"),
+                                         ("noise", "noise_bootstrap_peaks")])
+def test_bootstrap_at_2_23_and_2_24_runs_both_nulls_on_the_split(
+        launches, monkeypatch, mode, kernel, bits, n1, strips):
+    """At nfft 2^23 and 2^24 both nulls run K4a and K4b (or K6) on the
+    split, the long side in the rows: 2,048 x 4,096 with strips of 8
+    columns and 4 rows, 4,096 x 4,096 with 4 and 4; one buffer of the
+    packed rows (no ping-pong copy)."""
+    gen = torch.Generator().manual_seed(0)
+    sig1 = torch.randn(600_000, generator=gen)
+    sig2 = torch.randn(600_000, generator=gen)
+    scratch = []
+    stub = cf._scratch
+    monkeypatch.setattr(cf, "_scratch", lambda rows, nfft, device: (
+        scratch.append((rows, nfft)) or stub(rows, nfft, device)))
+    ttdoa.bootstrap_significance(sig1, sig2, gen, num_bootstrap=4,
+                                 bootstrap_mode=mode, nfft=1 << bits)
+    assert [n for n, _ in launches] == ["fft_real", kernel]
+    assert _named(launches, "fft_real")[0][4:6] == (n1, strips[0])
+    (args,) = _named(launches, kernel)
+    # (.., rows, length or n_samp, nfft, n1, column strip, row strip, ..)
+    assert args[2:8] == (4, 600_000, 1 << bits, n1) + strips
+    assert scratch == [(1, 1 << bits), (2, 1 << bits)]
+
+
 @pytest.mark.parametrize("mode,kernel", [("permutation", "bootstrap_peaks"),
                                          ("noise", "noise_bootstrap_peaks")])
 def test_bootstrap_above_2_22_runs_both_nulls_on_the_passes(launches, mode,
                                                             kernel):
-    """At nfft 2^23 both nulls run K4a and K4b (or K6) on the radix-2
-    passes (n1 = 0), with twice the packed rows of scratch."""
+    """At nfft 2^25, past K4a's, K4b's and K6's largest split (2^24), both
+    nulls run K4a and K4b (or K6) on the radix-2 passes (n1 = 0), with
+    twice the packed rows of scratch."""
     gen = torch.Generator().manual_seed(0)
-    sig1 = torch.randn(4_200_000, generator=gen)
-    sig2 = torch.randn(4_200_000, generator=gen)
+    sig1 = torch.randn(600_000, generator=gen)
+    sig2 = torch.randn(600_000, generator=gen)
     ttdoa.bootstrap_significance(sig1, sig2, gen, num_bootstrap=4,
-                                 bootstrap_mode=mode, nfft=1 << 23)
+                                 bootstrap_mode=mode, nfft=1 << 25)
     assert [n for n, _ in launches] == ["fft_real", kernel]
     assert _named(launches, "fft_real")[0][4] == 0
     (args,) = _named(launches, kernel)
-    assert args[2:6] == (4, 4_200_000, 1 << 23, 0)
+    assert args[2:6] == (4, 600_000, 1 << 25, 0)
 
 
 @pytest.mark.parametrize("nfft,n1,strips", [
-    (4096, 1, (0, 8)), (1 << 16, 256, (16, 16)), (1 << 20, 1024, (16, 16)),
-    (1 << 21, 2048, (8, 16)), (1 << 22, 2048, (8, 8)), (1 << 23, 0, (0, 8))])
+    (4096, 1, (0, 0)), (1 << 16, 256, (16, 16)), (1 << 20, 1024, (16, 16)),
+    (1 << 21, 2048, (8, 16)), (1 << 22, 2048, (8, 8)),
+    (1 << 23, 2048, (8, 4)), (1 << 24, 4096, (4, 4)), (1 << 25, 0, (0, 0))])
 def test_fft_real_schedule_by_length(launches, nfft, n1, strips):
     """K4a's n1 (``_split_n1``) and the strips of its two passes: 16 and
-    16 up to 2^20, 8 columns from n1 = 2,048 and 8 rows at n2 = 2,048;
-    one block (n1 = 1) and the passes (n1 = 0) read neither."""
+    16 up to 2^20, 8 columns from n1 = 2,048 and 8 rows at n2 = 2,048, 4
+    rows at n2 = 4,096 (2^23) and 4 columns at n1 = 4,096 (2^24); one
+    block (n1 = 1) and the passes (n1 = 0, above 2^24) read neither and
+    get 0."""
     cf.fft_real(torch.zeros(2, 100), nfft)
     (args,) = _named(launches, "fft_real")
     assert args[3:5] == (nfft, n1)
@@ -173,14 +222,18 @@ N1_ARGS = {"gcc_all_pairs": slice(4, 6), "gcc_windowed": slice(4, 6),
     ("gcc_all_pairs", 1 << 23, 0), ("gcc_windowed", 1 << 23, 0),
     ("scene_windowed", 1 << 23, 0),
     ("whitened_corr", 1 << 20, 1024), ("whitened_corr", 1 << 21, 2048),
-    ("whitened_corr", 1 << 22, 2048), ("whitened_corr", 1 << 23, 0)])
+    ("whitened_corr", 1 << 22, 2048), ("whitened_corr", 1 << 23, 0)] + [
+    (k, 1 << 24, 0) for k in ("gcc_all_pairs", "gcc_windowed",
+                              "scene_windowed", "delay_sum",
+                              "whitened_corr")] + [("delay_sum", 1 << 23, 0)])
 def test_other_kernels_keep_their_routes_above_2_20(launches, kernel, nfft,
                                                     n1):
-    """K4a's, K4b's and K6's split reaches 2^22, and so do K9's, the GCCs'
-    of K1, K2 and K5 (4 mics a scene) and the renders of K3 and K5: n1 =
-    1,024 at 2^20 and 2,048 at 2^21 and 2^22, the GCCs through their mic
-    rows' spectra and the renders through their base rows' spectra
-    (``render_route``), the radix-2 passes (n1 = 0) at 2^23."""
+    """K9's split, the GCCs' of K1, K2 and K5 (4 mics a scene) and the
+    renders of K3 and K5 reach 2^22: n1 = 1,024 at 2^20 and 2,048 at 2^21
+    and 2^22, the GCCs through their mic rows' spectra and the renders
+    through their base rows' spectra (``render_route``), the radix-2
+    passes (n1 = 0) at 2^23 and 2^24, where K4a's, K4b's and K6's split
+    goes on (``FFT_SPLIT_MAX``) and these keep their pass launches."""
     _route(kernel, nfft)
     (args,) = _named(launches, kernel)
     if kernel == "scene_windowed":
@@ -480,6 +533,64 @@ def test_window_partials_follow_the_column_strip():
 
 def _row_counts(calls, name, index):
     return [args[index] for args in _named(calls, name)]
+
+
+@pytest.mark.parametrize("bits,draws,want", [
+    (22, 1000, [1000]), (23, 1000, [512, 488]),
+    (24, 1000, [256, 256, 256, 232]), (24, 300, [256, 44]),
+    (25, 100, [64, 36])])
+def test_bootstraps_cap_their_scratch_by_bytes(launches, monkeypatch, bits,
+                                               draws, want):
+    """K4b's and K6's launches take at most ``_launch_rows`` rows: as many
+    as keep the scratch within ``SPLIT_SCRATCH_BYTES`` (16 GiB; one buffer
+    of packed rows on the split, two on the passes), an even count.  1,000
+    draws at 2^22 keep one launch (16.8 GB); 512 rows a launch at 2^23, 256
+    at 2^24, 64 on the passes at 2^25.  Each chunk's rows, seeds and
+    peaks start where the previous chunk ended, and the scratch holds the
+    first chunk's packed rows."""
+    nfft = 1 << bits
+    n1 = cf._split_n1(nfft)
+    assert cf._launch_rows(n1, nfft) == want[0] or len(want) == 1
+    scratch = []
+    stub = cf._scratch
+    monkeypatch.setattr(cf, "_scratch", lambda rows, n, device: (
+        scratch.append(rows) or stub(rows, n, device)))
+    s1 = torch.zeros(nfft // 2 + 1, dtype=torch.complex64)
+    cf.bootstrap_peaks(s1, torch.zeros(draws, 16), nfft)
+    cf.noise_bootstrap_peaks(s1, torch.zeros(draws, 2, dtype=torch.int32),
+                             16, nfft)
+    copies = 2 if n1 == 0 else 1
+    assert scratch == [copies * ((want[0] + 1) // 2)] * 2
+    assert scratch[0] * nfft * 8 <= cf.SPLIT_SCRATCH_BYTES
+    for name in ("bootstrap_peaks", "noise_bootstrap_peaks"):
+        calls = _named(launches, name)
+        assert [args[2] for args in calls] == want
+        assert [args[5] for args in calls] == [n1] * len(want)
+        starts = np.cumsum([0] + want[:-1])
+        assert [args[-1] - calls[0][-1] for args in calls] == list(4 * starts)
+        step = 16 * 4 if name == "bootstrap_peaks" else 2 * 4
+        assert [args[1] - calls[0][1] for args in calls] == list(
+            step * starts)
+
+
+def test_fft_real_caps_its_scratch_by_bytes(launches, monkeypatch):
+    """K4a chunks by the same rule (``_launch_rows``): at the real cap
+    1,000 rows of 2^22 stay one launch and 2^23 takes 512 a launch; with
+    the cap lowered to four packed rows of 2^23, 11 rows launch as 8 and
+    3, each chunk's rows and spectra starting where the previous one
+    ended."""
+    nfft = 1 << 23
+    assert cf.SPLIT_SCRATCH_BYTES == 16 << 30
+    assert cf._launch_rows(cf._split_n1(1 << 22), 1 << 22) == 1024
+    assert cf._launch_rows(cf._split_n1(nfft), nfft) == 512
+    assert cf._launch_rows(1, 4096) == cf.ROW_CHUNK
+    assert cf._launch_rows(cf._split_n1(1 << 16), 1 << 16) == 65536
+    monkeypatch.setattr(cf, "SPLIT_SCRATCH_BYTES", 4 * nfft * 8)
+    cf.fft_real(torch.zeros(11, 8), nfft)
+    calls = _named(launches, "fft_real")
+    assert [args[1] for args in calls] == [8, 3]
+    assert calls[1][0] - calls[0][0] == 8 * 8 * 4
+    assert calls[1][-1] - calls[0][-1] == 8 * (nfft // 2 + 1) * 8
 
 
 def test_row_kernels_launch_in_chunks_beyond_the_grid(launches):

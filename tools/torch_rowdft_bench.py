@@ -45,8 +45,11 @@ shapes (``GCC_SHAPES``) and K9 at the single pair's lengths and an edge
 (``CORR_SHAPES``), each held against its twin, by CUDA events and in
 device time by kernel, beside the twin's times (cuFFT).  ``--long``
 times only K4a, K4b, K6, K1 and K9 at their shapes above 2^20 (two rows
-of a 23.7 s pair at 2^21 and one row at 2^22 against ``torch.fft.rfft``;
-the pair's null at 64 and 1,000 draws and one row at 2^22; K1 at the
+of a 23.7 s pair at 2^21 and one row at 2^22, 2^23 and 2^24 against
+``torch.fft.rfft``; the pair's null at 64 and 1,000 draws, one row at
+2^22 and three at 2^23 and 2^24, K6 also at 1,000 draws at 2^23 and 300
+at 2^24, each K4b or K6 case from ``HEAVY_POINTS`` timed one call a loop
+and logged as not fitting where the card runs out of memory; K1 at the
 23.7 s recording's 4 and 8 mics at 2^21 and 4 mics at 2^22, K9 at one
 pair of each); ``--gcc --long`` times only K1 (``ROUTE_GCC``) and K2,
 K3 and K5 (``ROUTE_SCENES``) at the shapes where the GCC goes through
@@ -55,10 +58,10 @@ base rows' spectra (``--scene --long``: those of K2, K3 and K5 alone,
 then chip_smoke.py's simulated 20 s and 60 s scenes on the fast path,
 ``long_scenes``, K3 at 2^20 and 2^22: their wall time cold and warm and
 their device time by kernel); ``--recording`` runs chip_smoke.py's 4 x 24 s
-recording (phase 10, ``long_recording``) from this tree at 2^21 and 2^22
-and its recordings of the spectra routes (``spectra_recordings``, 2^20
-to 2^22): their wall time cold and warm and their device time by
-kernel.  ``--trace`` (alone)
+recording (phase 10, ``long_recording``) from this tree at 2^21 and 2^22,
+its 4 x 60 s recording at 2^23 (``recording23``) and its recordings of
+the spectra routes (``spectra_recordings``, 2^20 to 2^22): their wall
+time cold and warm and their device time by kernel.  ``--trace`` (alone)
 counts the ``device_ms`` traces that miss a kernel, with and without
 their idle edges (``trace_check``).  ``k10``
 (``--k10``, alone) times K10a (``row_dft``), K10b (``row_stages``) and
@@ -104,30 +107,42 @@ CHAIN_MIN_N2 = 512
 # the production paths' shapes (rows, len, nfft): the bootstrap's and the
 # api's single row, the single pair, max_expected_delay=None, and 1024 rows;
 # above 2^20 (the split's strips of 8) the single pair of a 23.7 s
-# recording at 44.1 kHz at 2^21 and one row of 2,000,000 samples at 2^22.
+# recording at 44.1 kHz at 2^21 and one row of 2,000,000 samples at 2^22,
+# and (the split past 2^22, the long side in the rows) sig1 of a 47.5 s
+# and a 95 s recording at 44.1 kHz under max_expected_delay=None (2^23,
+# 2^24).
 K4A_TOL = 5e-6
 LONG = 1046019            # 23.7 s at 44.1 kHz: the api's nfft is 2^21
 K4A_SHAPES = ((1, 44100, 65536), (2, 44100, 65536), (1, 44100, 131072),
               (1024, 65536, 65536), (2, LONG, 1 << 21),
-              (1, 2000000, 1 << 22))
+              (1, 2000000, 1 << 22), (1, 4200000, 1 << 23),
+              (1, 8400000, 1 << 24))
 # K4b against its twin, absolute (peaks of correlations bounded by 1), at
 # the permutation null's shapes (rows, len, nfft): the main path's and
 # no_gate's lengths, two rows (16-row strips) and one block, and above 2^20
-# the 23.7 s pair's null at phase 10's 64 and the default 1,000 draws and
-# one row at 2^22; K7 at one scene's exact-length spectrum; the calls a
-# host step is timed over.
+# the 23.7 s pair's null at phase 10's 64 and the default 1,000 draws,
+# one row at 2^22 and three at 2^23 and 2^24; K7 at one scene's
+# exact-length spectrum; the calls a host step is timed over.
 BOOT_TOL = 1e-6
 BOOT_SHAPES = ((1000, 44100, 65536), (1000, 44100, 131072),
                (2, 44100, 65536), (999, 3000, 4096), (64, LONG, 1 << 21),
-               (1000, LONG, 1 << 21), (1, 2000000, 1 << 22))
+               (1000, LONG, 1 << 21), (1, 2000000, 1 << 22),
+               (3, 4200000, 1 << 23), (3, 8400000, 1 << 24))
 K7_SHAPE = (1, 44100)
 HOST_CALLS = 10_000
 # K6 at the noise null's shapes (draws, n_samp, nfft): the main path's and
-# no_gate's lengths, two draws and one block, and K4b's shapes above 2^20;
-# the card tests' limit.
+# no_gate's lengths, two draws and one block, K4b's shapes above 2^20, the
+# default 1,000 draws at 2^23 and 300 at 2^24 (two launches each under
+# ``cuda_fft.SPLIT_SCRATCH_BYTES``); the card tests' limit.
 K6_SHAPES = ((1000, 44100, 65536), (1000, 44100, 131072), (2, 44100, 65536),
              (999, 1500, 4096), (64, LONG, 1 << 21), (1000, LONG, 1 << 21),
-             (1, 2000000, 1 << 22))
+             (1, 2000000, 1 << 22), (3, 4200000, 1 << 23),
+             (3, 8400000, 1 << 24), (1000, 4200000, 1 << 23),
+             (300, 8400000, 1 << 24))
+# Points (rows x nfft) from which K4b and K6 are timed by one call a loop
+# and traced over one call (a parent tree's radix-2 passes take seconds a
+# call there).
+HEAVY_POINTS = 1 << 31
 # --long: the shapes from this length on (the split's strips of 8 columns).
 LONG_MIN = 1 << 21
 # Points (rows x nfft) a call of K4b's and K6's plain twins takes at once:
@@ -436,6 +451,12 @@ def _shapes(shapes, min_nfft: int):
     return [s for s in shapes if s[2] >= min_nfft]
 
 
+def _calls(rows: int, nfft: int, reps: int):
+    """(CUDA-event calls a loop, traced calls) of a K4b or K6 case: reps
+    and 5, one and one from ``HEAVY_POINTS`` on."""
+    return (reps, 5) if rows * nfft < HEAVY_POINTS else (1, 1)
+
+
 def k4a(reps: int = 20, log=print, min_nfft: int = 0) -> dict:
     """K4a against ``torch.fft.rfft`` at ``K4A_SHAPES`` (those from
     ``min_nfft`` on), each held against its twin: CUDA-event ms per call
@@ -479,17 +500,19 @@ def boot(reps: int = 10, log=print, min_nfft: int = 0) -> dict:
         sig = torch.randn(length, generator=gen, device=dev)
         keys = torch.rand((rows, length), generator=gen, device=dev)
         x = sig[torch.argsort(keys, dim=-1)].contiguous()
+        del keys
         s1 = cf.fft_real_plain(torch.randn((1, length), generator=gen,
                                            device=dev), nfft)[0].contiguous()
         call = lambda: cf.bootstrap_peaks(s1, x, nfft)  # noqa: E731
-        got, ms = time_ms(call, reps)
+        calls, traced = _calls(rows, nfft, reps)
+        got, ms = time_ms(call, calls)
         want = twin_rows(lambda r: cf.bootstrap_peaks_plain(s1, r, nfft), x,
                          nfft)
         err = float((got - want).abs().max())
         if not err <= BOOT_TOL:
             raise AssertionError(f"K4b {rows} x {length} -> {nfft}: max "
                                  f"|kernel - plain| = {err:.3e}")
-        res = {"ms": ms, "device": device_ms(call, 5)}
+        res = {"ms": ms, "device": device_ms(call, traced)}
         out[("k4b", rows, length, nfft)] = res
         log(f"K4b {rows} x {length} -> {nfft}: {ms:.4f} ms; device "
             f"{res['device']['total']:.4f} ms in "
@@ -529,14 +552,22 @@ def k6(reps: int = 10, log=print, min_nfft: int = 0) -> dict:
                               dtype=torch.int32, device=dev)
         call = lambda: cf.noise_bootstrap_peaks(  # noqa: E731
             s1, seeds, n_samp, nfft)
-        got, ms = time_ms(call, reps)
+        calls, traced = _calls(rows, nfft, reps)
+        try:
+            got, ms = time_ms(call, calls)
+        except torch.cuda.OutOfMemoryError as err:
+            # A parent tree's passes need twice the scratch.
+            log(f"K6 {rows} x {n_samp} -> {nfft}: does not fit the card "
+                f"({str(err).splitlines()[0]})")
+            torch.cuda.empty_cache()
+            continue
         want = twin_rows(lambda sd: cf.noise_bootstrap_peaks_plain(
             s1, sd, n_samp, nfft), seeds, nfft)
         err = float((got - want).abs().max())
         if not err <= BOOT_TOL:
             raise AssertionError(f"K6 {rows} x {n_samp} -> {nfft}: max "
                                  f"|kernel - plain| = {err:.3e}")
-        res = {"ms": ms, "device": device_ms(call, 5)}
+        res = {"ms": ms, "device": device_ms(call, traced)}
         out[(rows, n_samp, nfft)] = res
         log(f"K6 {rows} x {n_samp} -> {nfft}: {ms:.4f} ms; device "
             f"{res['device']['total']:.4f} ms in "
@@ -887,13 +918,16 @@ def recording(card: str) -> None:
     """``chip_smoke.long_recording`` of this tree (the 4 x 24 s recording
     written, read back and localized with the noise null at nfft 2^21 and,
     under ``max_expected_delay=None``, 2^22, a warm call each, the device
-    time by kernel) and ``spectra_recordings`` (16 s on the full core at
-    2^20; 16, 30 and 60 s on the fast path at 2^20 to 2^22), logged beside
-    ``card``.  A tree whose K1 or K2 still runs its radix-2 passes there
-    logs them (``hold_split=False``, ``hold_spectra=False``)."""
+    time by kernel), ``recording23`` (4 x 60 s at 44.1 kHz under
+    ``max_expected_delay=None``: K4a and K6 at 2^23, K1 on its passes) and
+    ``spectra_recordings`` (16 s on the full core at 2^20; 16, 30 and 60 s
+    on the fast path at 2^20 to 2^22), logged beside ``card``.  A tree
+    whose K1, K2, K4a or K6 still runs its radix-2 passes there logs them
+    (``hold_split=False``, ``hold_spectra=False``)."""
     smoke = _smoke()
     smoke.CARD[0] = card
     smoke.long_recording(cf, torch, {}, hold_split=False)
+    smoke.recording23(cf, torch, {}, hold_split=False)
     smoke.spectra_recordings(cf, torch, {}, hold_spectra=False)
 
 
