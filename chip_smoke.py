@@ -779,7 +779,8 @@ def kernel_phase(cf, torch):
         draw("fft_real", tag)
         x = randn(rows_n, length).contiguous()
         res = compare(
-            f"fft_real[{tag}] rows={rows_n} len={length} nfft={nfft}",
+            f"fft_real[{tag}] rows={rows_n} len={length} nfft={nfft}"
+            f"{split_note(cf, nfft, rows_n)}",
             lambda: cf.fft_real(x, nfft),
             lambda: cf.fft_real_plain(x, nfft), tol=5e-6,
             reps=20 if rows_n < 1024 else 5,
@@ -836,7 +837,8 @@ def kernel_phase(cf, torch):
         del keys
         s1 = cf.fft_real_plain(randn(1, length), nfft)[0].contiguous()
         res = compare(
-            f"bootstrap_peaks[{tag}] rows={rows_n} len={length} nfft={nfft}",
+            f"bootstrap_peaks[{tag}] rows={rows_n} len={length} nfft={nfft}"
+            f"{split_note(cf, nfft, rows_n)}",
             lambda: cf.bootstrap_peaks(s1, rows, nfft),
             lambda: twin_rows(lambda r: cf.bootstrap_peaks_plain(s1, r, nfft),
                               rows, nfft),
@@ -872,7 +874,7 @@ def kernel_phase(cf, torch):
         seeds = randint(rows_n, 2)
         res = compare(
             f"noise_bootstrap_peaks[{tag}] draws={rows_n} n_samp={n_samp} "
-            f"nfft={nfft}",
+            f"nfft={nfft}{split_note(cf, nfft, rows_n)}",
             lambda: cf.noise_bootstrap_peaks(s1, seeds, n_samp, nfft),
             lambda: twin_rows(lambda sd: cf.noise_bootstrap_peaks_plain(
                 s1, sd, n_samp, nfft), seeds, nfft),
@@ -1126,6 +1128,18 @@ def kernel_phase(cf, torch):
     rowdft_checks(torch)
     log(f"K10 checks of phase 3: {time.perf_counter() - start:.1f} s")
     return results
+
+
+def split_note(cf, nfft, rows):
+    """" strips c/r/b": the strips of the split's column passes (K4a's pass
+    1, K4b's and K6's passes 1 and 3), K4a's pass 2 and K4b's and K6's row
+    pass at nfft for ``rows`` rows (``cuda_fft.split_plan``; no launch
+    takes a thread-block cluster); "" off the split."""
+    if not cf.FFT_REAL_ONE_BLOCK < nfft <= cf.FFT_SPLIT_MAX:
+        return ""
+    plan = cf.split_plan(nfft, (rows + 1) // 2)
+    return (f" strips {plan.cols.strip}/{plan.rows.strip}/"
+            f"{plan.boot_rows.strip}")
 
 
 def gcc_kernels(cf, nfft, mics):
@@ -4491,7 +4505,8 @@ def main() -> int:
     ptxas = cf.BUILD_DIR / "ptxas.log"
     if ptxas.exists():
         for line in ptxas.read_text().splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if ("registers" in line or "Compiling entry" in line
+                    or "stack frame" in line):
                 log(f"  {line.strip()}")
 
     # Phase 3: kernels against their plain versions.

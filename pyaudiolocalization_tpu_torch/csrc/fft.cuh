@@ -235,14 +235,15 @@ __device__ __forceinline__ void dft_small(float2 (&v)[R], float sgn) {
 // the sub-transforms done.  Butterfly i of sequence s reads points
 // i + m*L/R, multiplies point m by W_{pR}^{m k} (k = i mod p), and writes
 // the R-point DFT to (i - k)*R + k + m*p.  Thread t takes butterflies
-// t + u*blockDim.x, u < kElems/R, sequence fastest (s = task mod S), so a
-// half-warp touches 16 neighbouring sequences.  The first stage (p = 1)
-// needs no twiddle.
-template <int S, int R>
+// t + u*blockDim.x, u < E/R (E points a thread: kElems, or twice as many
+// where a block runs half the threads), sequence fastest (s = task mod
+// S), so a half-warp touches 16 neighbouring sequences.  The first stage
+// (p = 1) needs no twiddle.
+template <int S, int R, int E = kElems>
 __device__ __forceinline__ void stockham_stage(float2* x, int js, int ss,
                                                int L, int p,
                                                const float2* stw, float sgn) {
-  constexpr int kTasks = kElems / R;
+  constexpr int kTasks = E / R;
   const int q = L / R;
   const int tasks = q * S;
   const int half = L >> 1;
@@ -286,12 +287,12 @@ __device__ __forceinline__ void stockham_stage(float2* x, int js, int ss,
 // block_fft's radix-16 stage: stockham_stage<S, 16>, the DFT-16 in float32
 // registers.  A caller may pass another stage of the same signature and
 // index maps (K10a's W16 product on the tensor cores, rowdft.cu).
-template <int S>
+template <int S, int E = kElems>
 struct Radix16 {
   __device__ __forceinline__ void operator()(float2* x, int js, int ss,
                                              int L, int p, const float2* stw,
                                              float sgn) const {
-    stockham_stage<S, 16>(x, js, ss, L, p, stw, sgn);
+    stockham_stage<S, 16, E>(x, js, ss, L, p, stw, sgn);
   }
 };
 
@@ -300,20 +301,33 @@ struct Radix16 {
 // out: one stage of radix 2^(log2(L) mod 4) first where that is not 1,
 // then radix-16 stages (`stage16`).  stw: the L/2 sub-twiddles in shared
 // memory.  sgn = 1 forward, -1 the unscaled inverse.  Needs blockDim.x >=
-// fft_threads(L, S); every thread of the block calls it.  Synchronizes on
+// L * S / E (``fft_threads`` for E = kElems); every thread of the block
+// calls it.  E = 2 * kElems runs two butterflies a thread a stage, each
+// the same arithmetic, in a block of half the threads.  Synchronizes on
 // entry and exit.
-template <int S, class Stage16 = Radix16<S>>
-__device__ void block_fft(float2* x, int js, int ss, int L,
-                          const float2* stw, float sgn,
-                          const Stage16& stage16 = Stage16()) {
+//
+// `block_fft_inline` is the same transform inlined where it is called: a
+// kernel that runs two transforms (K4b's and K6's row pass) calls it, so
+// that neither becomes a function call whose saved registers spill.
+template <int S, class Stage16 = Radix16<S>, int E = kElems>
+__device__ __forceinline__ void block_fft_inline(
+    float2* x, int js, int ss, int L, const float2* stw, float sgn,
+    const Stage16& stage16 = Stage16()) {
   __syncthreads();
   int bits = 0;
   while ((1 << bits) < L) ++bits;
   int p = 1 << (bits & 3);
-  if (p == 2) stockham_stage<S, 2>(x, js, ss, L, 1, stw, sgn);
-  if (p == 4) stockham_stage<S, 4>(x, js, ss, L, 1, stw, sgn);
-  if (p == 8) stockham_stage<S, 8>(x, js, ss, L, 1, stw, sgn);
+  if (p == 2) stockham_stage<S, 2, E>(x, js, ss, L, 1, stw, sgn);
+  if (p == 4) stockham_stage<S, 4, E>(x, js, ss, L, 1, stw, sgn);
+  if (p == 8) stockham_stage<S, 8, E>(x, js, ss, L, 1, stw, sgn);
   for (; p < L; p <<= 4) stage16(x, js, ss, L, p, stw, sgn);
+}
+
+template <int S, class Stage16 = Radix16<S>, int E = kElems>
+__device__ void block_fft(float2* x, int js, int ss, int L,
+                          const float2* stw, float sgn,
+                          const Stage16& stage16 = Stage16()) {
+  block_fft_inline<S, Stage16, E>(x, js, ss, L, stw, sgn, stage16);
 }
 
 }  // namespace palt

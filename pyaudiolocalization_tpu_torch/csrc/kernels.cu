@@ -285,6 +285,18 @@ cudaError_t with_split_strip(int strip, Launch launch) {
 // 1 writes Y, pass 2 reads it: 16 each way) besides the rows' read and the
 // spectra's write.
 
+// The sequence stride (in float2) of a strip of S rows of n2 points in
+// K4a's pass 2 and K4b's and K6's row pass: n2 + 16 / S up to 16 rows,
+// n2 + 1 above.  `block_fft` runs the sequences fastest, so the 16
+// threads of a half-warp's 8-byte access take S rows of 16 / S
+// consecutive points: at that stride they fall in 16 distinct bank pairs
+// (n2 + 1 gave 4-way conflicts at S = 4, 2-way at 8).  The same points and
+// the same arithmetic, only their places change.
+template <int S>
+__host__ __device__ constexpr int row_ld(int n2) {
+  return n2 + (S < 16 ? 16 / S : 1);
+}
+
 // Row of Y in slot r (< 2 * pairs) of pass-2 block b; block 0's slot
 // `pairs` holds row n1/2, row 0's own partner being itself.
 __device__ __forceinline__ int pair_row(int b, int r, int n1, int pairs) {
@@ -337,6 +349,53 @@ __device__ __forceinline__ void stage_split_tables(
     const float2 w = tw[(size_t)(a & ((n2 >> 1) - 1)) * n1];
     hi[a] = a < (n2 >> 1) ? w : make_float2(-w.x, -w.y);
   }
+}
+
+// The tables of K4a's, K4b's and K6's split kernels (n = n1 * n2).  Above
+// 2^20 the n1- and n2-point half tables are read from the contiguous
+// copies after the n-point table (``cuda_fft._twiddles``: the same floats
+// as its every n2-th and n1-th entry); up to 2^20 as before, from the
+// n-point table at a stride (there the many blocks of a launch would all
+// read one small contiguous copy).  kWhere: 1 above 2^20, 0 up to it, -1
+// by n at run time; a kernel whose strip settles it passes 0 or 1, so
+// that its shapes up to 2^20 compile to the reads they had (`split_where`).
+// stw <- the n1-point (second = false) or n2-point sub-twiddles.
+template <int kWhere>
+__device__ __forceinline__ void stage_split_twiddles(
+    float2* stw, const float2* __restrict__ tw, int n1, int n2,
+    bool second) {
+  const int n = n1 * n2;
+  const int len = second ? n2 : n1;
+  if (kWhere == 0 || (kWhere < 0 && n <= (1 << 20))) {
+    palt::stage_twiddles(stw, tw, len, second ? n1 : n2);
+    return;
+  }
+  palt::stage_twiddles(stw, tw + (n >> 1) + (second ? n1 >> 1 : 0), len, 1);
+}
+
+// `stage_split_tables`, above 2^20 with hi from the n2-point half table.
+template <int kWhere>
+__device__ __forceinline__ void stage_split_tables_of(
+    float2* lo, float2* hi, const float2* __restrict__ tw, int n1, int n2) {
+  const int n = n1 * n2;
+  if (kWhere == 0 || (kWhere < 0 && n <= (1 << 20))) {
+    stage_split_tables(lo, hi, tw, n1, n2);
+    return;
+  }
+  const float2* t2 = tw + (n >> 1) + (n1 >> 1);
+  for (int r = threadIdx.x; r < n1; r += blockDim.x) lo[r] = tw[r];
+  for (int a = threadIdx.x; a < n2; a += blockDim.x) {
+    const float2 w = t2[a & ((n2 >> 1) - 1)];
+    hi[a] = a < (n2 >> 1) ? w : make_float2(-w.x, -w.y);
+  }
+}
+
+// kWhere of a strip of S sequences: strips below kStrip sequences occur
+// only above 2^20 (1), wider ones only up to it (0), kStrip itself on
+// both sides (-1).
+template <int S>
+__host__ __device__ constexpr int split_where() {
+  return S < palt::kStrip ? 1 : (S > palt::kStrip ? 0 : -1);
 }
 
 __device__ __forceinline__ float2 split_twiddle(const float2* lo,
@@ -427,8 +486,10 @@ struct PackedLoad {
 
 // Pass 1.  Grid (n2 / S column strips, packed rows), S = kStrip (16), 8
 // or 4 columns a strip (n1 * S <= kElems * 1024).  The twiddle W_n^{j2 k1}
-// from the two tables of `stage_split_tables`.  The block writes the
-// strip it read, so y may be the loader's own buffer.
+// from the two tables of `stage_split_tables_of` (above 2^20 the
+// n1-point sub-twiddles and the n2-point table read contiguously from the
+// half tables after the n-point one).  The block writes the strip it
+// read, so y may be the loader's own buffer.
 template <class Load, int S>
 __global__ void __launch_bounds__(1024)
 fft_real_cols(Load load, int n1, int n2, const float2* __restrict__ tw,
@@ -442,8 +503,10 @@ fft_real_cols(Load load, int n1, int n2, const float2* __restrict__ tw,
   const int c = blockIdx.y;
   const int c0 = blockIdx.x * S;
   const auto src = load.row(c);
-  palt::stage_twiddles(stw, tw, n1, n2);
-  stage_split_tables(lo, hi, tw, n1, n2);
+  // Column strips below 16 occur only above 2^20, of 16 only up to it.
+  constexpr int kWhere = S < palt::kStrip ? 1 : 0;
+  stage_split_twiddles<kWhere>(stw, tw, n1, n2, false);
+  stage_split_tables_of<kWhere>(lo, hi, tw, n1, n2);
   const int total = n1 * S;
   float2 v[kElems];
 #pragma unroll
@@ -493,11 +556,11 @@ fft_real_rows(const float2* __restrict__ y, int rows, int n1, int n2,
   constexpr int kPairs = S / 2;
   float2* stw = palt::fft_shared();
   float2* buf = stw + (n2 >> 1);
-  const int ld = n2 + 1;  // odd sequence stride: conflict-free columns
+  const int ld = row_ld<S>(n2);  // conflict-free half-warps
   const int n = n1 * n2;
   const int c = blockIdx.y;
   const int b = blockIdx.x;
-  palt::stage_twiddles(stw, tw, n2, n1);
+  stage_split_twiddles<split_where<S>()>(stw, tw, n1, n2, true);
   const float2* yc = y + (size_t)c * n;
   const int total = S * n2;
   const int shift = __ffs(n2) - 1;
@@ -562,11 +625,11 @@ __global__ void split_spectra(const float2* __restrict__ z, int rows, int n,
 int fft_real_rows_launch(const float2* y, int rows, int n1, int n2, int s2,
                          const float2* tw, float2* out, cudaStream_t s) {
   const int packed = (rows + 1) / 2;
-  const int smem = (n2 / 2 + s2 * (n2 + 1)) * (int)sizeof(float2);
   const dim3 grid(n1 / s2, packed);
   const int threads = palt::fft_threads(n2, s2);
   const cudaError_t err = with_strip(s2, [&](auto strip) {
     constexpr int S = decltype(strip)::value;
+    const int smem = (n2 / 2 + S * row_ld<S>(n2)) * (int)sizeof(float2);
     const cudaError_t e = palt::allow_smem<fft_real_rows<S>>();
     if (e == cudaSuccess)
       fft_real_rows<S><<<grid, threads, smem, s>>>(y, rows, n1, n2, tw, out);
@@ -830,7 +893,8 @@ boot_block(const float2* __restrict__ s1, Load load, int rows, int n,
 //
 // A row pass holds S rows k1 of a packed row's pass-1 output Y (n1 x n2)
 // in a strip of shared memory, sequence stride ld = n2 + 1 (odd:
-// conflict-free columns): block b's slot r holds row pair_row(b, r), half
+// conflict-free columns; `row_ld` in K4b's and K6's): block b's slot r
+// holds row pair_row(b, r), half
 // of them the partners n1 - k1 of the other half, so that every bin's
 // mirror n - k lies in the same block.  Up to S * n2 threads.  S = kStrip
 // (16) but in K4b's, K6's and `corr_rows`' row pass at n2 = 2,048, which
@@ -882,40 +946,41 @@ __device__ __forceinline__ PairTask pair_task(int t, int b, int n1, int n2,
   return {n1 * n2 - p, mirror, at};
 }
 
-// Strip <- rows pair_row(b, r), r < S, of yc (n1 x n2), every load of a
-// thread in flight before its first store.
-template <int S = palt::kStrip>
+// Strip <- rows pair_row(b, r), r < S, of yc (n1 x n2) at sequence
+// stride ld (n2 + 1 but in `boot_rows`), E points a thread, every load of
+// a thread in flight before its first store.
+template <int S = palt::kStrip, int E = palt::kElems>
 __device__ __forceinline__ void load_rows(const float2* yc, float2* buf,
-                                          int b, int n1, int n2) {
-  using palt::kElems;
+                                          int b, int n1, int n2,
+                                          int ld = 0) {
   constexpr int kPairs = S / 2;
-  const int ld = n2 + 1;
+  if (ld == 0) ld = n2 + 1;
   const int total = S * n2;
   const int shift = __ffs(n2) - 1;
-  float2 v[kElems];
+  float2 v[E];
 #pragma unroll
-  for (int u = 0; u < kElems; ++u) {
+  for (int u = 0; u < E; ++u) {
     const int idx = threadIdx.x + u * blockDim.x;
     const size_t row = pair_row(b, idx >> shift, n1, kPairs);
     v[u] = idx < total ? yc[row * n2 + (idx & (n2 - 1))]
                        : make_float2(0.0f, 0.0f);
   }
 #pragma unroll
-  for (int u = 0; u < kElems; ++u) {
+  for (int u = 0; u < E; ++u) {
     const int idx = threadIdx.x + u * blockDim.x;
     if (idx < total) buf[(idx >> shift) * ld + (idx & (n2 - 1))] = v[u];
   }
 }
 
 // yc rows pair_row(b, r) <- the strip's inverse row DFTs times W_n^{-j2
-// k1} (the tables of `stage_split_tables`).
+// k1} (the tables of `stage_split_tables`); ld as `load_rows`.
 template <int S = palt::kStrip>
 __device__ __forceinline__ void store_rows(const float2* buf, float2* yc,
                                            const float2* lo,
                                            const float2* hi, int b, int n1,
-                                           int n2) {
+                                           int n2, int ld = 0) {
   constexpr int kPairs = S / 2;
-  const int ld = n2 + 1;
+  if (ld == 0) ld = n2 + 1;
   const int total = S * n2;
   const int shift = __ffs(n2) - 1;
   for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
@@ -961,9 +1026,12 @@ __device__ __forceinline__ void cols_inverse(const float2* yc, float2* buf,
 // length of the output's runs as in K4a's pass 2: 16 rows keep a block at
 // n2 threads (8 rows at n2 = 2,048: 1,024 threads, 172 KB; 4 rows at
 // 4,096: 1,024 threads, 192-208 KB), and at n2 <= 256 (kMaxThreads 256)
-// two blocks an SM with up to 128 registers a thread, against spills at
-// 64.
-template <int kMaxThreads, int kMinBlocks, int S>
+// two blocks an SM with up to 128 registers a thread.  The forward and
+// the inverse row DFTs are `block_fft_inline`, each inlined where it is
+// called.  E points a thread (kElems, or twice as many in half the
+// threads where kMaxThreads = 512, above 2^20: up to 128 registers a
+// thread at one block an SM).
+template <int kMaxThreads, int kMinBlocks, int S, int E = palt::kElems>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 boot_rows(const float2* __restrict__ s1, int rows, int n1, int n2, float eps,
           const float2* __restrict__ tw, float2* y, float* __restrict__ out) {
@@ -971,7 +1039,7 @@ boot_rows(const float2* __restrict__ s1, int rows, int n1, int n2, float eps,
   float2* lo = stw + (n2 >> 1);
   float2* hi = lo + n1;
   float2* buf = hi + n2;
-  const int ld = n2 + 1;
+  const int ld = row_ld<S>(n2);  // conflict-free half-warps
   const int n = n1 * n2;
   const int c = blockIdx.y;
   const int b = blockIdx.x;
@@ -979,18 +1047,22 @@ boot_rows(const float2* __restrict__ s1, int rows, int n1, int n2, float eps,
     out[2 * c] = -INFINITY;
     if (2 * c + 1 < rows) out[2 * c + 1] = -INFINITY;
   }
-  palt::stage_twiddles(stw, tw, n2, n1);
-  stage_split_tables(lo, hi, tw, n1, n2);
+  // The 512-thread build runs only above 2^20, the others only up to it.
+  constexpr int kWhere = kMaxThreads == 512 ? 1 : 0;
+  stage_split_twiddles<kWhere>(stw, tw, n1, n2, true);
+  stage_split_tables_of<kWhere>(lo, hi, tw, n1, n2);
   float2* yc = y + (size_t)c * n;
-  load_rows<S>(yc, buf, b, n1, n2);
-  palt::block_fft<S>(buf, 1, ld, n2, stw, 1.0f);
+  load_rows<S, E>(yc, buf, b, n1, n2, ld);
+  palt::block_fft_inline<S, palt::Radix16<S, E>, E>(buf, 1, ld, n2, stw,
+                                                    1.0f);
   const int tasks = pair_tasks<S>(b, n2);
   for (int t = threadIdx.x; t < tasks; t += blockDim.x) {
     const PairTask p = pair_task<S>(t, b, n1, n2, ld);
     boot_pair(s1, buf + p.zq, buf + p.zm, p.q, n, eps);
   }
-  palt::block_fft<S>(buf, 1, ld, n2, stw, -1.0f);
-  store_rows<S>(buf, yc, lo, hi, b, n1, n2);
+  palt::block_fft_inline<S, palt::Radix16<S, E>, E>(buf, 1, ld, n2, stw,
+                                                    -1.0f);
+  store_rows<S>(buf, yc, lo, hi, b, n1, n2, ld);
 }
 
 // Pass 3, pass 1 mirrored.  Grid (n2 / S column strips, packed rows),
@@ -1007,7 +1079,8 @@ boot_cols(const float2* __restrict__ y, int rows, int n1, int n2,
   float* red = reinterpret_cast<float*>(buf + n1 * S);
   const int n = n1 * n2;
   const int c = blockIdx.y;
-  palt::stage_twiddles(stw, tw, n1, n2);
+  // Column strips below 16 occur only above 2^20, of 16 only up to it.
+  stage_split_twiddles<(S < palt::kStrip ? 1 : 0)>(stw, tw, n1, n2, false);
   cols_inverse<S>(y + (size_t)c * n, buf, stw, n1, n2, blockIdx.x * S);
   const int total = n1 * S;
   float mre = -INFINITY;
@@ -1025,14 +1098,18 @@ boot_cols(const float2* __restrict__ y, int rows, int n1, int n2,
   }
 }
 
-// K4b's and K6's row pass, strips of S rows.
+// K4b's and K6's row pass, strips of S rows: fft_threads(n2, S) threads
+// a block up to 2^20, half as many with twice the points a thread above
+// (1,024 -> 512 at every strip there; strips of 8 and 4 rows occur only
+// there).
 template <int S>
 cudaError_t boot_rows_launch(const float2* s1, int rows, int n1, int n2,
                              float eps, const float2* tw, float2* buf,
                              float* out, cudaStream_t s) {
   const dim3 grid(n1 / S, (rows + 1) / 2);
   const int threads = palt::fft_threads(n2, S);
-  const int smem = (n2 / 2 + n1 + n2 + S * (n2 + 1)) * (int)sizeof(float2);
+  const int smem =
+      (n2 / 2 + n1 + n2 + S * row_ld<S>(n2)) * (int)sizeof(float2);
   cudaError_t err;
   if constexpr (S == palt::kStrip) {  // 8 or 4 rows at n2 = 2,048, 4,096
     if (n2 <= 256) {
@@ -1043,10 +1120,19 @@ cudaError_t boot_rows_launch(const float2* s1, int rows, int n1, int n2,
       return cudaGetLastError();
     }
   }
-  err = palt::allow_smem<boot_rows<1024, 1, S>>();
-  if (err != cudaSuccess) return err;
-  boot_rows<1024, 1, S><<<grid, threads, smem, s>>>(s1, rows, n1, n2, eps, tw,
-                                                    buf, out);
+  if (S < palt::kStrip || (size_t)n1 * n2 > ((size_t)1 << 20)) {
+    err = palt::allow_smem<boot_rows<512, 1, S, 2 * palt::kElems>>();
+    if (err != cudaSuccess) return err;
+    boot_rows<512, 1, S, 2 * palt::kElems><<<grid, threads / 2, smem, s>>>(
+        s1, rows, n1, n2, eps, tw, buf, out);
+    return cudaGetLastError();
+  }
+  if constexpr (S == palt::kStrip) {  // strips below 16 run above 2^20
+    err = palt::allow_smem<boot_rows<1024, 1, S>>();
+    if (err != cudaSuccess) return err;
+    boot_rows<1024, 1, S><<<grid, threads, smem, s>>>(s1, rows, n1, n2, eps,
+                                                      tw, buf, out);
+  }
   return cudaGetLastError();
 }
 

@@ -49,7 +49,8 @@ pair-indexed loader, and the render's K4a's two into the base rows'
 spectra, then a mix row pass and the column pass; up to 2^22 for K9 and
 the GCCs and renders of K1, K2, K3 and K5, whose strips narrow to 8 at
 2,048, and up to 2^24 for K4a, K4b and K6, whose strips narrow to 4 at
-4,096, ``split_strips``), so a transform reads
+4,096, ``split_strips``; ``split_plan`` gives each launch of theirs, with
+the row strips' bank-spread stride), so a transform reads
 and writes each point once per launch (16 bytes a complex point) and is
 bound by device memory at that.  Up to 4,096 points the bootstraps, K9,
 the render (a packed base row a block) and the all-pairs and windowed
@@ -249,11 +250,24 @@ def _library() -> ctypes.CDLL:
 def _twiddles(nfft: int, device: str) -> torch.Tensor:
     """exp(-2*pi*i*m/nfft), m < nfft/2, made in float64 and rounded once to
     float32, as a (nfft/2, 2) tensor; the exact zero of cos at m = nfft/4
-    is kept exact."""
-    ang = -2.0 * np.pi * np.arange(nfft // 2) / nfft
-    tw = np.stack([np.cos(ang), np.sin(ang)], -1)
-    tw[np.abs(tw) < 1e-12] = 0.0
-    return torch.from_numpy(tw.astype(np.float32)).to(device)
+    is kept exact.  On K4a's split above 2^20 (``STAGE_SPLIT_MAX`` < nfft
+    <= ``FFT_SPLIT_MAX``) the half tables of n1 and n2
+    (``fft_real_split``) follow, made the same way: entry q of the L-point
+    table is entry q * nfft / L of the first, bit for bit (the angles
+    differ by powers of two), read contiguously by K4a's, K4b's and K6's
+    split kernels (``stage_split_twiddles`` and ``stage_split_tables_of``
+    in ``csrc/kernels.cu``)."""
+    lengths = [nfft]
+    if STAGE_SPLIT_MAX < nfft <= FFT_SPLIT_MAX:
+        lengths += list(fft_real_split(nfft))
+    parts = []
+    for n in lengths:
+        ang = -2.0 * np.pi * np.arange(n // 2) / n
+        tw = np.stack([np.cos(ang), np.sin(ang)], -1)
+        tw[np.abs(tw) < 1e-12] = 0.0
+        parts.append(tw)
+    return torch.from_numpy(np.concatenate(parts).astype(np.float32)).to(
+        device)
 
 
 def _check_pow2(nfft: int) -> None:
@@ -452,6 +466,57 @@ def split_strips(n1: int, n2: int):
             widest(n2, lambda s: _row_pass_smem(n1, n2, 1, s)))
 
 
+class SplitPass(NamedTuple):
+    """One launch of the split (``split_plan``): the strip a block holds
+    (columns of a column pass, rows of a row pass) and its bytes of
+    dynamic shared memory."""
+    strip: int
+    smem: int
+
+
+class SplitPlan(NamedTuple):
+    """The launches of K4a's, K4b's and K6's split at one shape
+    (``split_plan``): K4a's pass 1 (``fft_real_cols``, also the first
+    pass of K4b, K6 and the spectra routes), K4a's pass 2
+    (``fft_real_rows``), and K4b's and K6's row pass (``boot_rows``) and
+    last column pass (``boot_cols``)."""
+    cols: SplitPass
+    rows: SplitPass
+    boot_rows: SplitPass
+    boot_cols: SplitPass
+
+
+def row_ld(strip: int, n2: int) -> int:
+    """The sequence stride (complex points) of a strip of ``strip`` rows of
+    n2 points in K4a's pass 2 and K4b's and K6's row pass (``row_ld`` in
+    ``csrc/kernels.cu``): n2 + 16 / strip up to 16 rows, so that a
+    half-warp's 16 threads fall in distinct shared-memory bank pairs,
+    n2 + 1 above."""
+    return n2 + (16 // strip if strip < 16 else 1)
+
+
+def split_plan(nfft: int, packed: int = 1) -> SplitPlan:
+    """Each launch of the split at nfft (8,192 to ``FFT_SPLIT_MAX``) for
+    ``packed`` packed rows a launch: its strip (``split_strips``,
+    ``fft_real_rows_strip``) and shared memory a block (the kernels' byte
+    counts; K4a's pass 2 and K4b's and K6's row pass hold their rows at
+    the stride ``row_ld``).  Every block holds at most ``BLOCK_POINTS``
+    points in at most ``SMEM_OPTIN`` bytes, and no launch takes a
+    thread-block cluster: clusters that read whole sectors of each row
+    measured 30-40 % slower on an H100 (PERF.md).  K4b's and K6's row pass
+    runs 512 threads a block above 2^20 (``boot_rows_launch``)."""
+    n1, n2 = fft_real_split(nfft)
+    if n1 == 1 or nfft > FFT_SPLIT_MAX:
+        raise ValueError(f"split_plan: nfft {nfft} is not on the split")
+    cs, rs = split_strips(n1, n2)
+    s2 = fft_real_rows_strip(n2, packed)
+    return SplitPlan(
+        SplitPass(cs, 8 * (n1 // 2 + n1 + n2 + n1 * cs)),
+        SplitPass(s2, 8 * (n2 // 2 + s2 * row_ld(s2, n2))),
+        SplitPass(rs, 8 * (n2 // 2 + n1 + n2 + rs * row_ld(rs, n2))),
+        SplitPass(cs, 8 * (n1 // 2 + n1 * cs) + 128))
+
+
 def _gcc_block_smem(nfft: int, mics: int) -> int:
     """Bytes of shared memory of a scene's GCC in one block (``gcc_block``,
     ``window_block``): the nfft/2 twiddles, the (mics + 1) // 2 packed mic
@@ -645,7 +710,8 @@ def fft_real(x: torch.Tensor, nfft: int) -> torch.Tensor:
     four-step split (``fft_real_split``) of two on-chip launches, the
     columns' DFTs with the twiddle (strips of 16 columns, 8 at n1 = 2,048,
     4 at 4,096: ``split_strips``), then the rows' DFTs with the two real
-    spectra split in the epilogue (``fft_real_rows_strip``); above, the
+    spectra split in the epilogue (``fft_real_rows_strip``; the launches
+    as ``split_plan`` gives them); above, the
     packed rows, the log2(nfft) radix-2 passes through device memory (one
     launch a pass) and the split into the two spectra.  Bound by device
     memory: the rows' read, one write and one read of the packed
@@ -666,17 +732,16 @@ def fft_real(x: torch.Tensor, nfft: int) -> torch.Tensor:
     out = torch.empty((rows, nfft // 2 + 1), dtype=torch.complex64,
                       device=dev)
     n1 = _split_n1(nfft)
-    cols = _split_strips(n1, nfft)[0]
     chunks = _row_chunks(rows, _launch_rows(n1, nfft))
     packed = (chunks[0][1] + 1) // 2 if chunks else 0
     buf = _pass_scratch(n1, packed, nfft, dev)
     tw = _twiddles(nfft, str(dev))
     for r0, r1 in chunks:
+        plan = split_plan(nfft, (r1 - r0 + 1) // 2) if n1 > 1 else None
+        cols, s2 = (plan.cols.strip, plan.rows.strip) if plan else (0, 0)
         _launch("fft_real", dev, lib.palt_fft_real, x[r0].data_ptr(),
-                r1 - r0, length, nfft, n1, cols,
-                fft_real_rows_strip(nfft // n1, (r1 - r0 + 1) // 2)
-                if n1 > 1 else 0, tw.data_ptr(), _ptr(buf),
-                out[r0].data_ptr())
+                r1 - r0, length, nfft, n1, cols, s2, tw.data_ptr(),
+                _ptr(buf), out[r0].data_ptr())
     return out
 
 
@@ -1017,7 +1082,8 @@ def bootstrap_peaks(s1: torch.Tensor, rows: torch.Tensor, nfft: int,
       inverse row DFTs and the inverse twiddle in shared memory and writes
       back in place; and a column pass whose inverse column DFTs end in
       the maxima (the column passes' strips 16 columns, 8 at n1 = 2,048,
-      4 at 4,096: ``split_strips``);
+      4 at 4,096: ``split_strips``; the row pass in 512 threads from
+      2^21);
     - above: the radix-2 passes through device memory (one launch a
       pass), ping-ponging in a scratch buffer of twice the packed rows.
 

@@ -7,6 +7,10 @@ with only torch:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
+The cases above 2^20 run from ``test_torch_cuda_long.py``, a file of
+their own: in one process after them, late profiler traces here lost
+each call's first kernel.
+
 Tolerances are float32's: transforms of log2(nfft) radix-2 passes in the
 kernel and in cuFFT, compared on values bounded by 1 (correlations, finalized
 renders) or relative to the spectrum's peak (``fft_real``).  Noisy renders
@@ -89,66 +93,6 @@ def test_fft_real_kernel_matches_plain(cuda, rows, length, nfft):
     assert float((got - want).abs().max()) < 5e-6 * float(want.abs().max())
 
 
-# K4a's, K4b's and K6's n1 above 2^20: the split to 2^24 (the long side in
-# the rows above 2^22), the radix-2 passes above.
-LONG_N1 = {1 << 21: 2048, 1 << 22: 2048, 1 << 23: 2048, 1 << 24: 4096,
-           1 << 25: 0}
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows,length,nfft", [
-    (2, 1_046_019, 1 << 21), (3, 1_046_019, 1 << 21), (1, 2_000_000, 1 << 22),
-    (3, 4_000_000, 1 << 23), (1, 8_400_000, 1 << 24), (2, 600_000, 1 << 25)])
-def test_fft_real_runs_the_passes_above_2_20(cuda, rows, length, nfft):
-    """Above 2^20 K4a runs the four-step split with strips of 8 columns
-    (``split_strips``) at 2^21 (a 23.7 s recording at 44.1 kHz, the
-    bootstrap's spectrum; 2,048 x 1,024) and 2^22 (2,048 x 2,048, pass 2's
-    strips 8 rows), with the long side in the rows at 2^23 (2,048 x 4,096,
-    pass 2's strips 4 rows) and 2^24 (4,096 x 4,096, 4 columns, 4 rows),
-    and above its largest split (2^24) packs the rows, runs the radix-2
-    passes (one launch a pass) and splits the two spectra (2^25): each
-    against its twin, relative to the spectrum's peak."""
-    assert cf._split_n1(nfft) == LONG_N1[nfft]
-    x = torch.randn((rows, length), generator=_gen(cuda), device=cuda)
-    before = cf.LAUNCHES["fft_real"]
-    got = cf.fft_real(x, nfft)
-    assert cf.LAUNCHES["fft_real"] == before + 1
-    want = cf.fft_real_plain(x, nfft)
-    torch.cuda.synchronize()
-    assert got.dtype == torch.complex64 and got.shape == want.shape
-    assert float((got - want).abs().max()) < 5e-6 * float(want.abs().max())
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["permutation", "noise"])
-def test_bootstrap_significance_at_2_21_on_the_card(cuda, mode):
-    """The api's bootstrap of a 600,000-sample pair at nfft 2^21 (K4a and
-    K4b or K6 on the split, 2,048 x 1,024) against the twins on the same
-    draws: the permuted rows, or the noise draws' seeds."""
-    g = _gen(cuda, 3)
-    sig1 = torch.randn(600_000, generator=g, device=cuda)
-    sig2 = torch.randn(600_000, generator=g, device=cuda)
-    nfft = 1 << 21
-    cf.reset_launches()
-    got = tdoa.bootstrap_significance(sig1, sig2, _gen(cuda, 4), 16,
-                                      bootstrap_mode=mode, nfft=nfft)
-    kernel = "bootstrap_peaks" if mode == "permutation" else \
-        "noise_bootstrap_peaks"
-    assert cf.LAUNCHES["fft_real"] == 1 and cf.LAUNCHES[kernel] == 1
-    s1 = cf.fft_real_plain(sig1[None], nfft)[0]
-    if mode == "permutation":
-        rows = tdoa.permuted_rows(sig2, 16, _gen(cuda, 4))
-        peaks = cf.bootstrap_peaks_plain(s1, rows, nfft)
-    else:
-        seeds = torch.randint(-2 ** 31, 2 ** 31, (16, 2),
-                              generator=_gen(cuda, 4), dtype=torch.int32,
-                              device=cuda)
-        peaks = cf.noise_bootstrap_peaks_plain(s1, seeds, 600_000, nfft)
-    want = torch.quantile(peaks, 0.95)
-    torch.cuda.synchronize()
-    assert abs(float(got) - float(want)) < 1e-6
-
-
 def _device_kernels(fn, path, cycles=6):
     """Names of the device kernels that one warm call of ``fn`` runs, from
     ``torch.profiler`` traces of CUDA activity: of the traces from the
@@ -190,9 +134,7 @@ def test_device_kernels_per_call(cuda, tmp_path):
     row pass with the cross-spectra, the column pass with the window and
     the statistics) and K5 seven (K3's and K2's without K2's separate
     signals); K10a and K10b one kernel per transform, K10c one a call.
-    Above 2^20 (two rows of a 23.7 s pair at 2^21, three at 2^22 and
-    2^23, one at 2^24) K4a runs its two kernels with strips of 8 columns
-    (4 at 2^24) and K4b and K6 their three, not the radix-2 passes."""
+    (Above 2^20: ``test_torch_cuda_long.py``.)"""
     from pyaudiolocalization_tpu_torch.ops import rowdft as rd
     x = torch.randn((2, 44100), generator=_gen(cuda), device=cuda)
     names = _device_kernels(lambda: cf.fft_real(x, 65536),
@@ -227,28 +169,6 @@ def test_device_kernels_per_call(cuda, tmp_path):
         lambda: cf.noise_bootstrap_peaks(s1, seeds[:999], 1500, 4096),
         tmp_path / "k6_small.json")
     assert len(names) == 1 and "boot_block" in names[0], names
-    for rows, length, nfft in ((2, 1_046_019, 1 << 21),
-                               (3, 2_000_000, 1 << 22),
-                               (3, 4_200_000, 1 << 23),
-                               (1, 8_400_000, 1 << 24)):
-        xl = torch.randn((rows, length), generator=_gen(cuda),
-                         device=cuda)
-        names = _device_kernels(lambda: cf.fft_real(xl, nfft),
-                                tmp_path / "k4a_long.json")
-        assert len(names) == 2, (nfft, names)
-        assert "fft_real_cols" in names[0] and "fft_real_rows" in names[1]
-        s1 = cf.fft_real(xl[:1], nfft)[0].contiguous()
-        names = _device_kernels(lambda: cf.bootstrap_peaks(s1, xl, nfft),
-                                tmp_path / "k4b_long.json")
-        assert len(names) == 3, (nfft, names)
-        assert ("fft_real_cols" in names[0] and "boot_rows" in names[1]
-                and "boot_cols" in names[2]), names
-        names = _device_kernels(
-            lambda: cf.noise_bootstrap_peaks(s1, seeds[:rows], length, nfft),
-            tmp_path / "k6_long.json")
-        assert len(names) == 3, (nfft, names)
-        assert "NoiseLoad" in names[0] and "boot_cols" in names[2], names
-        del xl
     base, tau, gains, snr, sd, fade = _scene_inputs(cuda, 4, 4, 1, 44356,
                                                     44100)
     pi, pj = _pairs(4)
@@ -298,9 +218,7 @@ def test_device_kernels_per_call(cuda, tmp_path):
 @pytest.mark.parametrize("rows,length,nfft", [
     (999, 3000, 4096), (1, 100, 128), (64, 44100, 65536), (2, 44100, 65536),
     (1000, 44100, 131072), (1, 3, 4), (3, 200000, 1 << 18),
-    (3, 600000, 1 << 20), (3, 100000, 1 << 21), (64, 1_046_019, 1 << 21),
-    (3, 2_000_000, 1 << 22), (3, 100000, 1 << 23), (3, 100000, 1 << 24),
-    (3, 100000, 1 << 25)])
+    (3, 600000, 1 << 20)])
 def test_bootstrap_peaks_kernel_matches_plain(cuda, rows, length, nfft):
     """One block (nfft <= 4096), the three launches of the split (n2 =
     256 at 65,536 and 131,072 with 2 and 1000 rows, n2 = 512 at 2^18 and
@@ -322,12 +240,7 @@ def test_bootstrap_peaks_kernel_matches_plain(cuda, rows, length, nfft):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,n_samp,nfft", [(1000, 44100, 65536),
                                               (999, 1500, 4096),
-                                              (3, 100, 128),
-                                              (3, 100000, 1 << 21),
-                                              (3, 2_000_000, 1 << 22),
-                                              (3, 100000, 1 << 23),
-                                              (3, 100000, 1 << 24),
-                                              (3, 100000, 1 << 25)])
+                                              (3, 100, 128)])
 def test_noise_bootstrap_peaks_kernel_matches_plain(cuda, rows, n_samp, nfft):
     """K6: the twin's integers are the same on the card and the CPU, and the
     kernel's peaks equal the twin's (odd draw counts; n_samp <= nfft/2 is
@@ -353,9 +266,7 @@ def test_noise_bootstrap_peaks_kernel_matches_plain(cuda, rows, n_samp, nfft):
 @pytest.mark.parametrize("rows,n_samp,nfft", [(1000, 44100, 65536),
                                               (999, 1500, 4096),
                                               (3, 100000, 131072),
-                                              (2, 6000, 8192), (3, 100, 128),
-                                              (3, 100000, 1 << 23),
-                                              (3, 100000, 1 << 24)])
+                                              (2, 6000, 8192), (3, 100, 128)])
 def test_noise_bootstrap_equals_bootstrap_on_its_draws(cuda, rows, n_samp,
                                                        nfft):
     """K6 runs K4b's schedules (one block up to 4096, the split above) with
@@ -371,47 +282,6 @@ def test_noise_bootstrap_equals_bootstrap_on_its_draws(cuda, rows, n_samp,
     want = cf.bootstrap_peaks(s1, noise_ops.uniform(seeds, n_samp), nfft)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-
-
-@pytest.mark.cuda
-def test_bootstrap_chunks_by_bytes_keep_one_launch_bits(cuda, monkeypatch):
-    """K6 at the default 1,000 draws of 2^23 takes two launches (512 and
-    488 draws) whose scratch stays within ``SPLIT_SCRATCH_BYTES``; with the
-    cap lowered to 8 rows a launch, K6, K4b and K4a at 2^23 give one
-    launch's bits (each packed row pair on its own, each draw keyed by
-    its own seed words), and K6 stays bit-equal to K4b on the same
-    draws."""
-    nfft, n_samp = 1 << 23, 4_200_000
-    g = _gen(cuda, 5)
-    s1 = cf.fft_real_plain(torch.randn((1, n_samp), generator=g,
-                                       device=cuda), nfft)[0].contiguous()
-    seeds = torch.randint(-2 ** 31, 2 ** 31, (1000, 2), generator=g,
-                          dtype=torch.int32, device=cuda)
-    cf.fft_real(s1.real[None, :16].contiguous(), nfft)   # twiddles cached
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    before = cf.LAUNCHES["noise_bootstrap_peaks"]
-    full = cf.noise_bootstrap_peaks(s1, seeds, n_samp, nfft)
-    torch.cuda.synchronize()
-    assert cf.LAUNCHES["noise_bootstrap_peaks"] == before + 2
-    assert torch.cuda.max_memory_allocated() - base <= (
-        cf.SPLIT_SCRATCH_BYTES + (1 << 20))
-    assert bool(torch.isfinite(full).all())
-    draws = noise_ops.uniform(seeds[:20], n_samp)
-    x = torch.randn((11, n_samp), generator=g, device=cuda)
-    boot = cf.bootstrap_peaks(s1, draws, nfft)
-    spec = cf.fft_real(x, nfft)
-    monkeypatch.setattr(cf, "SPLIT_SCRATCH_BYTES", 4 * nfft * 8)
-    before = dict(cf.LAUNCHES)
-    assert torch.equal(cf.noise_bootstrap_peaks(s1, seeds[:20], n_samp,
-                                                nfft), full[:20])
-    assert torch.equal(cf.bootstrap_peaks(s1, draws, nfft), boot)
-    assert torch.equal(boot, full[:20])
-    assert torch.equal(cf.fft_real(x, nfft), spec)
-    for name, launches in (("noise_bootstrap_peaks", 3),
-                           ("bootstrap_peaks", 3), ("fft_real", 2)):
-        assert cf.LAUNCHES[name] == before[name] + launches, name
 
 
 @pytest.mark.cuda
@@ -461,8 +331,7 @@ def test_whiten_kernel_takes_misaligned_views(cuda, bins):
 @pytest.mark.parametrize("rows,length,nfft,schedule", [
     (1, 44100, 65536, 256), (3, 3000, 4096, 1), (5, 100, 128, 1),
     (2, 44100, 131072, 512), (3, 6000, 8192, 128), (4, 100, 128, 1),
-    (1, 600000, 1 << 20, 1024), (1, 600000, 1 << 21, 2048),
-    (1, 2000000, 1 << 22, 2048), (1, 600000, 1 << 23, 0)])
+    (1, 600000, 1 << 20, 1024)])
 def test_whitened_corr_kernel_matches_plain(cuda, rows, length, nfft,
                                             schedule):
     """K9 on each of its schedules (``corr_schedule``): one block a packed
@@ -662,8 +531,7 @@ def test_gcc_all_pairs_launches_over_scene_chunks(cuda, monkeypatch):
                                                       256),
     (None, 4, 44100, 131072, 512), (3, 3, 6000, 8192, 128),
     (2, 8, 44100, 65536, 256), (1, 11, 44100, 65536, 256),
-    (1, 3, 600000, 1 << 20, 1024), (None, 4, 1046019, 1 << 21, 2048),
-    (2, 3, 600000, 1 << 21, 2048), (None, 4, 2000000, 1 << 22, 2048)])
+    (1, 3, 600000, 1 << 20, 1024)])
 def test_gcc_all_pairs_schedules_match_plain(cuda, b, m, length, nfft,
                                              schedule):
     """K1 on each of its schedules (``gcc_route``'s n1): one block a scene
@@ -695,10 +563,9 @@ def test_gcc_all_pairs_schedules_match_plain(cuda, b, m, length, nfft,
 def test_gcc_and_corr_device_kernels_per_call(cuda, tmp_path):
     """K1 runs three device kernels on the split at 65,536 and 131,072 (K4a's
     column pass, K2's row pass, the column pass that writes the
-    correlations), four at 2^21 and 2^22 (K4a's two passes, K9's row pass,
-    the column pass) and one in one block (4,096, up to 8 mics here); K9
-    two on the split (its row pass and K1's column pass), to 2^22, and one
-    in one block."""
+    correlations) and one in one block (4,096, up to 8 mics here); K9
+    two on the split (its row pass and K1's column pass) and one in one
+    block.  (2^21 and 2^22: ``test_torch_cuda_long.py``.)"""
     g = _gen(cuda, 8)
     pi, pj = _pairs(4)
     for shape, nfft in (((4, 44100), 65536), ((4, 44100), 131072),
@@ -711,15 +578,6 @@ def test_gcc_and_corr_device_kernels_per_call(cuda, tmp_path):
         assert len(names) == 3, names
         assert ("fft_real_cols" in names[0] and "gcc_rows" in names[1]
                 and "corr_cols" in names[2]), names
-    for length, nfft in ((1046019, 1 << 21), (2000000, 1 << 22)):
-        sig = torch.randn((4, length), generator=g, device=cuda)
-        mask = cf.band_mask(nfft, None, None, device=cuda)
-        names = _device_kernels(
-            lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
-            tmp_path / f"k1_{nfft}.json")
-        want = ("fft_real_cols", "fft_real_rows", "corr_rows", "corr_cols")
-        assert len(names) == 4, names
-        assert all(w in n for w, n in zip(want, names)), names
     for m in (4, 8):
         sig = torch.randn((128, m, 4000), generator=g, device=cuda)
         qi, qj = _pairs(m)
@@ -730,8 +588,6 @@ def test_gcc_and_corr_device_kernels_per_call(cuda, tmp_path):
         assert len(names) == 1 and "gcc_block" in names[0], names
     for nfft, want in ((65536, ("corr_rows", "corr_cols")),
                        (131072, ("corr_rows", "corr_cols")),
-                       (1 << 21, ("corr_rows", "corr_cols")),
-                       (1 << 22, ("corr_rows", "corr_cols")),
                        (4096, ("corr_block",))):
         spec = cf.fft_real(torch.randn((2, 4000), generator=g, device=cuda),
                            nfft)
@@ -746,12 +602,11 @@ def test_gcc_and_corr_device_kernels_per_call(cuda, tmp_path):
 # K1 and K2 through the mic rows' spectra (``cuda_fft.gcc_route``):
 # (scenes, mics, samples, nfft): on the split the api's 4 mics at 2^20
 # (a 18 s recording at 44.1 kHz), 8 mics and 2 scenes of 6 at 2^18 (past
-# ``gcc_rows``' 4), 11 mics at 65,536, and 4 mics at the fast path's 2^21
-# and 2^22 recording lengths; in one block 16 scenes of 16 mics and 4 of
-# 12 at 4,096.
+# ``gcc_rows``' 4) and 11 mics at 65,536; in one block 16 scenes of 16
+# mics and 4 of 12 at 4,096 (the fast path's 2^21 and 2^22:
+# ``test_torch_cuda_long.py``).
 SPECTRA_SHAPES = [(1, 4, 800000, 1 << 20), (1, 8, 200000, 1 << 18),
                   (2, 6, 200000, 1 << 18), (1, 11, 44100, 65536),
-                  (1, 4, 1500000, 1 << 21), (1, 4, 3000000, 1 << 22),
                   (16, 16, 4000, 4096), (4, 12, 3000, 4096)]
 
 
@@ -817,11 +672,11 @@ def test_gcc_spectra_routes_device_kernels_per_call(cuda, tmp_path):
     """Through the mic rows' spectra K1 runs four device kernels on the
     split at 2^20 (K4a's two passes, ``corr_rows``, ``corr_cols``) and two
     in one block at 4,096 with 12 mics (``fft_real_block``, ``corr_block``
-    with ``CorrOut``); K2 four at 2^21 (``window_cols`` last) and two at
-    4,096 (``corr_block`` with ``WindowOut``); no radix-2 pass anywhere."""
+    with ``CorrOut``); K2 four at 2^20 (``window_cols`` last) and two at
+    4,096 (``corr_block`` with ``WindowOut``); no radix-2 pass anywhere
+    (2^21: ``test_torch_cuda_long.py``)."""
     g = _gen(cuda, 21)
     for shape, nfft, wq in (((1, 4, 800000), 1 << 20, 21),
-                            ((1, 4, 1500000), 1 << 21, 21),
                             ((4, 12, 3000), 4096, 2)):
         sig = torch.randn(shape, generator=g, device=cuda)
         pi, pj = _pairs(shape[1])
@@ -849,15 +704,11 @@ def test_gcc_spectra_routes_device_kernels_per_call(cuda, tmp_path):
 
 # K3 and K5 where the render goes through the base rows' spectra
 # (``render_route``): (scenes, mics, paths, total, out, nfft, wq) of the
-# fast path's one scene of 4 mics at 2^20, 2^21 and 2^22 (chip_smoke.py's
-# FAST_SAMPLES; the finish spread over the card), 2 scenes of 3 mics and 3
-# paths at 2^21 (mic rows packed across scenes, an odd pair count) and 64
-# scenes of 4 mics at 2^20 (rows that fill the card: the finish one block
-# a mic row).
+# fast path's one scene of 4 mics at 2^20 (chip_smoke.py's FAST_SAMPLES;
+# the finish spread over the card) and 64 scenes of 4 mics at 2^20 (rows
+# that fill the card: the finish one block a mic row); 2^21 and 2^22:
+# ``test_torch_cuda_long.py``.
 RENDER_SPECTRA = [(1, 4, 1, 900000, 800000, 1 << 20, 21),
-                  (1, 4, 1, 1600000, 1500000, 1 << 21, 21),
-                  (1, 4, 1, 3100000, 3000000, 1 << 22, 21),
-                  (2, 3, 3, 1600000, 1500000, 1 << 21, 21),
                   (64, 4, 1, 900000, 800000, 1 << 20, 21)]
 
 

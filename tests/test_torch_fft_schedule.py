@@ -226,13 +226,16 @@ def fft_real_model(x, n):
         return out[:rows], writes[:rows]
     assert n1 * n2 == n and n1 <= 4096 and n1 % 32 == 0
     assert n1 >= n2 or n > cf.FFT_REAL_MAX    # the long side in the rows
-    y = _cols_pass(z, n1, n2, cf.split_strips(n1, n2)[0])
+    plan = cf.split_plan(n, packed)
+    y = _cols_pass(z, n1, n2, plan.cols.strip)
     # Pass 2 (fft_real_rows): block b holds rows pair_row(b, r), r < S2,
     # all blocks at once; then each (block, slot r, k2) of the epilogue.
-    S2 = cf.fft_real_rows_strip(n2, packed)
+    S2 = plan.rows.strip
+    assert S2 == cf.fft_real_rows_strip(n2, packed)
     nb, h2 = n1 // S2, n2 // 2
     slot_rows = _slot_rows(n1, S2)                         # (nb, S2)
     buf = block_fft(y[:, slot_rows, :].transpose(0, 1, 3, 2))  # (.,nb,n2,S)
+    del y
     b = np.arange(nb)[:, None, None]
     r = np.arange(S2)[None, :, None]
     k2 = np.arange(h2 + 1)[None, None, :]
@@ -308,7 +311,10 @@ def bootstrap_peaks_model(s1, x, n, strip=None):
         natural = block_fft(zf[:, :, None], -1.0)[..., 0]
         maxima = np.stack([natural.real.max(-1), natural.imag.max(-1)], -1)
     else:
-        cs, rs = cf.split_strips(n1, n2)
+        plan = cf.split_plan(n, packed)
+        cs, rs = plan.cols.strip, plan.boot_rows.strip
+        assert (cs, rs) == cf.split_strips(n1, n2)
+        assert plan.boot_cols.strip == cs
         y = _cols_pass(z, n1, n2, cs)
         # Pass 2 (boot_rows): the forward row DFTs of each block's slots.
         S2 = strip or rs
@@ -346,6 +352,7 @@ def bootstrap_peaks_model(s1, x, n, strip=None):
         # column DFTs; each block's maxima, then their maximum (the
         # atomics).
         strips = y.reshape(packed, n1, n2 // cs, cs).transpose(0, 2, 1, 3)
+        del y
         cols = block_fft(strips, -1.0)               # (packed, n2/cs, n1, cs)
         maxima = np.stack([cols.real.max(axis=(2, 3)).max(-1),
                            cols.imag.max(axis=(2, 3)).max(-1)], -1)
@@ -555,13 +562,16 @@ def test_split_strips_rule(n, strips, rows_strip):
     rows, both of 2^24's); K4a's pass 2 8 rows at n2 = 2,048 and 4 at
     4,096.  Each strip holds at most ``BLOCK_POINTS`` points and its pass
     fits one block's shared memory (the kernels' byte counts); the next
-    wider strip does not fit where a narrower one is taken.  The split
-    reaches 2^24 for these three kernels, 2^22 for K9 and K1 (K9's
-    schedule is theirs up to there), and 2^20 for the others
-    (``STAGE_SPLIT_MAX``)."""
+    wider strip does not fit where a narrower one is taken;
+    ``split_plan`` gives the same strips.  The split reaches 2^24 for
+    these three kernels, 2^22 for K9 and K1 (K9's schedule is theirs up to
+    there), and 2^20 for the others (``STAGE_SPLIT_MAX``)."""
     n1, n2 = cf.fft_real_split(n)
     assert cf.split_strips(n1, n2) == strips
     assert cf.fft_real_rows_strip(n2, 1) == rows_strip
+    plan = cf.split_plan(n)
+    assert (plan.cols.strip, plan.boot_rows.strip) == strips
+    assert plan.rows.strip == rows_strip
     cs, rs = strips
     assert n1 * cs <= cf.BLOCK_POINTS and n2 * rs <= cf.BLOCK_POINTS
     assert n2 % cs == 0 and n1 % rs == 0 and n1 % rows_strip == 0
@@ -579,6 +589,115 @@ def test_split_strips_rule(n, strips, rows_strip):
     assert cf._split_strips(0, 2 * cf.FFT_SPLIT_MAX) == (0, 0)
     assert cf.STAGE_SPLIT_MAX == 1 << 20 and cf.FFT_REAL_MAX == 1 << 22
     assert cf.FFT_SPLIT_MAX == 1 << 24
+
+
+@pytest.mark.parametrize("bits", range(13, 25))
+def test_split_plan_rule(bits):
+    """``split_plan`` at every length of the split, 8,192 to 2^24: each
+    pass's strip as ``split_strips`` and ``fft_real_rows_strip`` give it,
+    at most ``BLOCK_POINTS`` points and ``SMEM_OPTIN`` bytes a block (the
+    kernels' byte counts, the row strips at the stride ``row_ld``), for
+    1, 2 and 64 packed rows; up to 2^20 the rows at the odd stride n2 + 1
+    as before, and only strips of 16 columns and rows there."""
+    n = 1 << bits
+    n1, n2 = cf.fft_real_split(n)
+    cs, rs = cf.split_strips(n1, n2)
+    for packed in (1, 2, 64):
+        plan = cf.split_plan(n, packed)
+        s2 = cf.fft_real_rows_strip(n2, packed)
+        assert plan.cols == (cs, 8 * (n1 // 2 + n1 + n2 + n1 * cs))
+        assert plan.rows == (s2, 8 * (n2 // 2 + s2 * cf.row_ld(s2, n2)))
+        assert plan.boot_rows == (rs, 8 * (n2 // 2 + n1 + n2
+                                           + rs * cf.row_ld(rs, n2)))
+        assert plan.boot_cols == (cs, 8 * (n1 // 2 + n1 * cs) + 128)
+        for step, length in ((plan.cols, n1), (plan.rows, n2),
+                             (plan.boot_rows, n2), (plan.boot_cols, n1)):
+            assert step.strip * length <= cf.BLOCK_POINTS
+            assert step.smem <= cf.SMEM_OPTIN
+        if n <= cf.STAGE_SPLIT_MAX:
+            assert cf.row_ld(rs, n2) == cf.row_ld(s2, n2) == n2 + 1
+            assert cs == rs == 16 and s2 >= 16
+    with pytest.raises(ValueError):
+        cf.split_plan(cf.FFT_REAL_ONE_BLOCK)
+    with pytest.raises(ValueError):
+        cf.split_plan(2 * cf.FFT_SPLIT_MAX)
+
+
+@pytest.mark.parametrize("bits", range(13, 25))
+def test_split_twiddle_tables(bits):
+    """Above 2^20 the twiddle table (``_twiddles``) carries the half tables
+    of n1 and n2 after the n-point one, which K4a's, K4b's and K6's split
+    kernels read contiguously (``stage_split_twiddles``) in place of every
+    n2-th and n1-th entry of the n-point table: the same float32 bits.  Up
+    to 2^20 the table is the n-point one alone, read as before."""
+    n = 1 << bits
+    n1, n2 = cf.fft_real_split(n)
+    tab = cf._twiddles(n, "cpu").numpy()
+    if n <= cf.STAGE_SPLIT_MAX:
+        assert tab.shape == (n // 2, 2)
+        return
+    assert tab.shape == (n // 2 + n1 // 2 + n2 // 2, 2)
+    t1, t2 = tab[n // 2:n // 2 + n1 // 2], tab[n // 2 + n1 // 2:]
+    assert np.array_equal(t1.view(np.int32), tab[:n // 2:n2].view(np.int32))
+    assert np.array_equal(t2.view(np.int32), tab[:n // 2:n1].view(np.int32))
+    assert cf._twiddles(4096, "cpu").shape == (2048, 2)
+    assert cf._twiddles(2 * cf.FFT_SPLIT_MAX, "cpu").shape == (
+        cf.FFT_SPLIT_MAX, 2)
+
+
+@pytest.mark.parametrize("n1,n2,strip", [(2048, 1024, 8), (2048, 2048, 8),
+                                         (2048, 4096, 8), (4096, 4096, 4)])
+@pytest.mark.parametrize("s2", [4, 8, 16])
+def test_split_maps(n1, n2, strip, s2):
+    """The split's maps at its long shapes, a block alone: the column
+    passes' load (``_strip_points``; K4a's and K4b's pass 1, K4b's pass 3)
+    reads every point once, in runs of ``strip`` consecutive columns a
+    row, and pass 2's epilogue (strips of ``s2`` rows and their partners,
+    ``fft_real_rows``) writes every bin 0 .. n/2 once, each from its own
+    packed value and its mirror n - k's."""
+    n = n1 * n2
+    land = _strip_points(n1, n2, strip)
+    assert np.array_equal(np.bincount(land.ravel(), minlength=n),
+                          np.ones(n, int))
+    assert (np.diff(land.reshape(-1, strip), axis=-1) == 1).all()
+    if n2 * s2 > cf.BLOCK_POINTS:
+        return                                  # no block holds the strip
+    slot_rows = _slot_rows(n1, s2)
+    h2 = n2 // 2
+    r = np.arange(s2)[None, :, None]
+    k2 = np.arange(h2 + 1)[None, None, :]
+    row, pr, pk = _partner(slot_rows, r, k2, n1, n2)
+    live = (k2 < h2) | (row == 0)
+    b = np.broadcast_to(np.arange(n1 // s2)[:, None, None], row.shape)
+    k = (row + n1 * k2)[live]
+    mirror = (slot_rows[b, pr] + n1 * pk)[live]
+    assert np.array_equal(np.bincount(k, minlength=n // 2 + 1),
+                          np.ones(n // 2 + 1, int))
+    assert ((k + mirror) % n == 0).all()
+
+
+@pytest.mark.parametrize("bits", [21, 22, 23, 24])
+def test_noise_bootstrap_schedule_above_2_20(bits):
+    """K6 above 2^20: the noise loader's counter map over the column
+    pass's strips (``noise_rows_model``: every sample drawn once at its
+    own counter), then K4b's split, against
+    irfft(whiten(s1 * conj(rfft(draw)))) and ``noise_bootstrap_peaks_plain``,
+    at one draw of a recording's length."""
+    n = 1 << bits
+    rng = np.random.default_rng(200 + bits)
+    seeds = rng.integers(-2 ** 31, 2 ** 31, (1, 2)).astype(np.int32)
+    n_samp = n - n // 4 - 1
+    rows, reads = noise_rows_model(seeds, n_samp, n)
+    assert np.array_equal(reads, np.ones(n, int))
+    s1 = rng.standard_normal(n // 2 + 1) + 1j * rng.standard_normal(
+        n // 2 + 1)
+    x = rows.astype(np.float64)
+    del rows, reads
+    _check_boot(s1, x, n)
+    plain = cf.noise_bootstrap_peaks_plain(
+        torch.from_numpy(s1), torch.from_numpy(seeds), n_samp, n)
+    assert torch.equal(plain, cf.bootstrap_peaks_plain(
+        torch.from_numpy(s1), torch.from_numpy(x), n))
 
 
 @pytest.mark.parametrize("n2", [64, 128, 256, 512, 1024])
@@ -631,8 +750,10 @@ def noise_rows_model(seeds, n_samp, n):
     blockDim; the split's pass 1 reads ``_strip_points``."""
     rows = seeds.shape[0]
     n1, n2 = cf.fft_real_split(n)
-    t = (np.arange(n) if n1 == 1 else
-         _strip_points(n1, n2, cf.split_strips(n1, n2)[0]).ravel())
+    if n1 == 1:
+        t = np.arange(n)
+    else:
+        t = _strip_points(n1, n2, cf.split_plan(n).cols.strip).ravel()
     reads = np.bincount(t, minlength=n)
     key = seeds.astype(np.int64) & 0xFFFFFFFF
     w0, _ = noise_ops.philox_bits(torch.from_numpy(key[:, :1]),
@@ -2335,3 +2456,36 @@ def test_row_dft_schedule_matches_fft(n2):
     macs = 2 * 4 * 3 * 16 * 8 * 8 / (8 * 16)   # k8 halves x parts x terms
     assert macs == 192
     assert n2 * _k10a_strip(n2) // 16 <= 256   # threads a block
+
+
+@pytest.mark.parametrize("strip,n2", [
+    (64, 256), (32, 512), (16, 1024), (8, 1024), (8, 2048), (4, 2048),
+    (4, 4096), (2, 4096)])
+def test_row_strip_stride_is_conflict_free(strip, n2):
+    """K4a's pass 2 and K4b's and K6's row pass hold their rows at sequence
+    stride ``row_ld`` (n2 + 16 / strip up to 16 rows, n2 + 1 above): the
+    radix-16 stages' reads (point i + m*L/16 of sequence s, task i*S + s)
+    and their writes after the first stage ((i - k)*16 + k + m*p), and
+    pass 2's epilogue reads (slot r fastest, then k2), take one wavefront
+    a half-warp; at n2 + 1 strips narrower than 16 rows took up to 2 (2
+    and 8 rows) or 4 (4 rows)."""
+    assert n2 * strip <= cf.BLOCK_POINTS
+    ld = cf.row_ld(strip, n2)
+    threads = -(-n2 * strip // 16)       # ``fft_threads``: 16 points each
+    q = n2 // 16
+    task = np.arange(q * strip)
+    s, i = task % strip, task // strip
+    m = np.arange(16)
+    for stride, want in ((ld, 1), (n2 + 1, min(strip, max(1, 16 // strip)))):
+        reads = s[:, None] * stride + i[:, None] + m * q
+        assert _stage_ways(reads, threads) == want, (stride, want)
+        for p in (16, 256):
+            if p < n2:
+                k = i & (p - 1)
+                writes = (s[:, None] * stride + ((i - k) * 16 + k)[:, None]
+                          + m * p)
+                assert _stage_ways(writes, threads) == want
+        idx = np.arange(strip * (n2 // 2 + 1))
+        epilogue = (idx % strip) * stride + idx // strip
+        assert _stage_ways(epilogue[:, None], threads) == want
+    assert ld == (n2 + 1 if strip >= 16 else n2 + 16 // strip)

@@ -234,6 +234,8 @@ CORR_SHAPES = {"main": (1, 44100, 65536), "no_gate": (1, 44100, 131072),
                "edge": (3, 3000, 4096), "long": (1, LONG, 1 << 21),
                "long22": (1, 2000000, 1 << 22)}
 GCC_TOL = 1e-6
+# The split's kernels whose compiler report --long prints.
+SPLIT_KERNELS = ("fft_real_cols", "fft_real_rows", "boot_rows", "boot_cols")
 
 
 def time_ms(fn, reps: int, loops: int = 3):
@@ -538,10 +540,12 @@ def boot(reps: int = 10, log=print, min_nfft: int = 0) -> dict:
 
 def k6(reps: int = 10, log=print, min_nfft: int = 0) -> dict:
     """K6 against its twin at ``K6_SHAPES`` (those from ``min_nfft`` on):
-    CUDA-event ms per call (``time_ms``, median of three loops) and device
+    CUDA-event ms per call (``time_ms``, median of three loops), device
     ms per call by kernel with the device kernels a call runs
-    (``device_ms``).  Logs one line per shape and returns {shape: {"ms",
-    "device"}}."""
+    (``device_ms``), and the twin's ms for the call (one run, in chunks of
+    ``TWIN_POINTS``, synchronized at both ends).  Logs one line per shape
+    and returns {shape: {"ms", "device", "twin_ms"}}."""
+    import time
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
@@ -561,18 +565,24 @@ def k6(reps: int = 10, log=print, min_nfft: int = 0) -> dict:
                 f"({str(err).splitlines()[0]})")
             torch.cuda.empty_cache()
             continue
+        torch.cuda.synchronize()
+        start = time.perf_counter()
         want = twin_rows(lambda sd: cf.noise_bootstrap_peaks_plain(
             s1, sd, n_samp, nfft), seeds, nfft)
+        torch.cuda.synchronize()
+        twin_ms = (time.perf_counter() - start) * 1e3
         err = float((got - want).abs().max())
         if not err <= BOOT_TOL:
             raise AssertionError(f"K6 {rows} x {n_samp} -> {nfft}: max "
                                  f"|kernel - plain| = {err:.3e}")
-        res = {"ms": ms, "device": device_ms(call, traced)}
+        res = {"ms": ms, "device": device_ms(call, traced),
+               "twin_ms": twin_ms}
         out[(rows, n_samp, nfft)] = res
         log(f"K6 {rows} x {n_samp} -> {nfft}: {ms:.4f} ms; device "
             f"{res['device']['total']:.4f} ms in "
             f"{res['device']['kernels']:g} kernels a call "
-            f"({_split(res['device'])}); max |kernel - plain| {err:.2e}")
+            f"({_split(res['device'])}); max |kernel - plain| {err:.2e}; "
+            f"twin {twin_ms:.1f} ms")
     return out
 
 
@@ -1014,6 +1024,7 @@ def main() -> int:
             if args.scene:
                 simulations(smi)
         elif args.long:
+            ptxas_report(SPLIT_KERNELS, log)
             k4a(4 * args.reps, log, LONG_MIN)
             boot(2 * args.reps, log, LONG_MIN)
             k6(2 * args.reps, log, LONG_MIN)
