@@ -41,21 +41,23 @@ in twelve phases:
    ``gcc_rows``, 1 in one block; K9 2 and 1, also at 131,072; through the
    mic rows' spectra on the split K1 at 11 mics x 65,536, 8 mics x 2^18,
    1 x 4 mics of an 18 s recording (2^20) and of the 23.7 s recording's
-   length and at 8 mics (2^21) and at 4 mics x 2,000,000 samples (2^22),
-   and K2 at the fast path's 4 mics at 2^20, 2^21 and 2^22, 4 device
-   kernels a call (K4a's two passes into the mic rows' spectra, K9's row
+   length and at 8 mics (2^21), at 4 mics x 2,000,000 samples (2^22), at
+   4 and 8 mics x 4,200,000 (2^23) and 4 mics x 8,400,000 (2^24), and K2
+   at the fast path's 4 mics at 2^20 to 2^24, 4 device kernels a call
+   (K4a's two passes into the mic rows' spectra, K9's row
    pass over pairs of them, the column pass), and through them in one
    block K1 at 128 x 16 mics and K2 and K5 at 512 x 12 mics at 4,096 (2
    device kernels, K5 3; K5 also at 6 mics x 2^18, 8; K5 bit-equal to K3
    then K2 on both); K3 through the base rows' spectra at the fast path's
-   one scene of 4 mics at 2^20, 2^21 and 2^22, 2 scenes x 3 mics x 3
-   paths at 2^21 (8 device kernels a call: K4a's two passes,
+   one scene of 4 mics at 2^20 to 2^24, 2 scenes x 3 mics x 3 paths at
+   2^21 (8 device kernels a call: K4a's two passes,
    ``render_spec_rows``, ``render_cols``, 4 steps of the finish spread
    over the card) and 64 scenes x 4 mics at 2^20 (5: one
-   ``render_finalize``), and K5 at the fast path's three (12, bit-equal
-   to K3 then K2); and K9 at one pair of each length, 2, each above
-   2^20 (K1 from 2^20) held to its float32 twin within the limit plus the
-   twin's own distance from its float64 run, measured in the same run;
+   ``render_finalize``), and K5 at the fast path's five (12, bit-equal
+   to K3 then K2); and K9 at one pair of each length to 2^24, 2, and at
+   2^25 on the radix-2 passes, each above 2^20 (K1 from 2^20) held to its
+   float32 twin within the limit plus the twin's own distance from its
+   float64 run, measured in the same run;
    phase 11's shapes: K1 over segments x subframes, K3 over the moving
    render's 132 frames, K7 at 6 x 4,097 and 28 x 2,049 bins; phase 12's:
    K1 over array calibration's 8 x 4 and 12 x 6 events of 4,800 samples
@@ -75,8 +77,9 @@ in twelve phases:
    0.05 samples, position within 5 mm, ``significant`` equal); then the
    demo scene with ``analyze_correlation=False``, which takes the windowed
    fast path, held against ``tests/data/torch_sweep_golden.json``; then
-   the off-centre scene at 20 s and 60 s on the fast path (K3 at 2^20
-   and 2^22 through the base rows' spectra, K2 through the mic rows'),
+   the off-centre scene at 20 s, 60 s and 120 s on the fast path (K3 at
+   2^20, 2^22 and 2^23 through the base rows' spectra, K2 through the mic
+   rows'),
    cold and warm, with the device time by kernel (no radix-2 pass of K3
    or K2) and the TDOAs within 0.05 samples of the port's on the CPU;
 4b. the options path of ``localize_sound_source``, cold and warm: both
@@ -162,13 +165,12 @@ in twelve phases:
    the same recording under ``max_expected_delay=None`` (nfft 2^22: K1,
    K4a and K6 on their split of 8-wide strips) the same way; neither run
    launches a radix-2 pass of K1; a 4 x 60 s recording at 44.1 kHz under
-   ``max_expected_delay=None`` (nfft 2^23: K4a and K6 on their split past
-   2^22, K1 on its passes) the same way, with no radix-2 pass of K4a or
-   K6; 4-mic recordings at 44.1 kHz (no
-   resampling) of 16 s on the full core (K1 at 2^20) and of 16, 30 and
-   60 s on the fast path (K2 at 2^20, 2^21 and 2^22), the GCC through the
-   mic rows' spectra, each the same way, none with a radix-2 pass of K1
-   or K2;
+   ``max_expected_delay=None`` (nfft 2^23: K4a, K6 and K1 on their split
+   past 2^22) the same way, with no radix-2 pass of K4a, K6 or K1; 4-mic
+   recordings at 44.1 kHz (no resampling) of 16 s on the full core (K1
+   at 2^20) and of 16, 30, 60 and 120 s on the fast path (K2 at 2^20 to
+   2^23), the GCC through the mic rows' spectra, each the same way, none
+   with a radix-2 pass of K1 or K2;
    ``compat`` on the card (speed of sound, the single pair at the exact
    length by K7 and at a power of two by K4a + K9, the permutation null by
    K4a + K4b within 5 %, the significance metrics, ``noise_reduction`` by
@@ -331,7 +333,13 @@ ADDED = {("delay_sum", "odd"): 1, ("gcc_windowed", "odd"): 1,
          ("bootstrap_peaks", "passes25"): 12,
          ("noise_bootstrap_peaks", "split24"): 12,
          ("noise_bootstrap_peaks", "draws24"): 12,
-         ("noise_bootstrap_peaks", "passes25"): 12}
+         ("noise_bootstrap_peaks", "passes25"): 12,
+         ("delay_sum", "fast23"): 13, ("delay_sum", "fast24"): 13,
+         ("gcc_all_pairs", "split23"): 13, ("gcc_all_pairs", "split23_8"): 13,
+         ("gcc_all_pairs", "split24"): 13, ("gcc_windowed", "fast23"): 13,
+         ("gcc_windowed", "fast24"): 13, ("whitened_corr", "split23"): 13,
+         ("whitened_corr", "split24"): 13, ("whitened_corr", "passes25"): 13,
+         ("scene_windowed", "fast23"): 13, ("scene_windowed", "fast24"): 13}
 # The sweep across K2's, K3's and K5's scene-chunk boundary: one scene past
 # the 65,535 grid rows of one launch at 4 mics (3 couples), at nfft 512.
 CHUNK_SCENES = 21846
@@ -352,10 +360,11 @@ SPLIT23 = (4200000, 1 << 23)
 SPLIT24 = (8400000, 1 << 24)
 PASSES25 = (16800000, 1 << 25)
 DRAWS24 = 300
-# Phase 3's cases of the GCCs' spectra routes: one scene's samples at the
-# fast path's (and the full core's) 2^20, 2^21 and 2^22 under
-# DEFAULT_CONFIG (18.1, 34.0 and 68.0 s at 44.1 kHz).
-FAST_SAMPLES = {1 << 20: 800000, 1 << 21: 1500000, 1 << 22: 3000000}
+# Phase 3's cases of the spectra routes: one scene's samples at the fast
+# path's (and the full core's) 2^20 to 2^24 under DEFAULT_CONFIG (18.1,
+# 34.0, 68.0, 136.1 and 272.1 s at 44.1 kHz).
+FAST_SAMPLES = {1 << 20: 800000, 1 << 21: 1500000, 1 << 22: 3000000,
+                1 << 23: 6000000, 1 << 24: 12000000}
 PASSES25_KERNELS = {"fft_real": 27, "bootstrap_peaks": 52,
                     "noise_bootstrap_peaks": 51}
 # The card's name and power limit (nvidia-smi), set by main().
@@ -366,17 +375,19 @@ ONE_BLOCK_KERNELS = {"trio": 1, "short": 1, "chunks": 2}
 # Device kernels a call of K5 runs at phase 3's spectra-route shapes: at
 # 4,096 ``render_block``, ``fft_real_block``, ``corr_block``; at 2^18 the
 # render's split (3) and finalize, then the GCC's four; at the fast path's
-# 2^20 to 2^22 the render through the base rows' spectra (4), the finish
+# 2^20 to 2^24 the render through the base rows' spectra (4), the finish
 # spread over the card (``finish_spread``, 4 steps), then the GCC's four.
 SPECTRA_K5_KERNELS = {"spectra_block": 3, "spectra18": 8, "fast20": 12,
-                      "fast21": 12, "fast22": 12}
+                      "fast21": 12, "fast22": 12, "fast23": 12,
+                      "fast24": 12}
 # Device kernels a call of K3 runs through the base rows' spectra with
 # the finalize and the noise: K4a's two passes, ``render_spec_rows``,
 # ``render_cols``, then the finish, 4 steps of ``finish_spread`` where a
 # call's rows leave the card idle (one scene), else one
 # ``render_finalize`` (64 scenes).
 RENDER_SPECTRA_KERNELS = {"fast20": 8, "fast21": 8, "fast22": 8,
-                          "odd21": 8, "scenes20": 5}
+                          "odd21": 8, "scenes20": 5, "fast23": 8,
+                          "fast24": 8}
 
 # name -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -511,6 +522,12 @@ def kernel_phase(cf, torch):
     from pyaudiolocalization_tpu_torch.ops.delay import fade_window
     from pyaudiolocalization_tpu_torch.ops.fftutils import next_pow2
     dev = torch.device("cuda")
+    # K10's checks first: after the cases above 2^22 their traces of three
+    # one-kernel calls lost one of the kernels in each of three tries, in
+    # two runs on an H100, while every output held.
+    start = time.perf_counter()
+    rowdft_checks(torch)
+    log(f"K10 checks of phase 3: {time.perf_counter() - start:.1f} s")
     # Cases added in a later slice (ADDED) draw from a stream of their own,
     # so that adding a case leaves the inputs of every other case as they
     # were.
@@ -567,7 +584,7 @@ def kernel_phase(cf, torch):
         """max |plain(inputs) - plain(inputs widened to float64)|: the
         float32 twin's distance from its float64 run.  Above 2^20 a kernel
         is held to its float32 twin within the limit plus this distance,
-        which float32 rounding of a 2^21- or 2^22-point transform sets."""
+        which float32 rounding of a 2^21- to 2^24-point transform sets."""
         wide = [x.to(torch.complex128 if x.is_complex() else torch.float64)
                 for x in inputs]
         gap = float((plain(*inputs).double() - plain(*wide)).abs().max())
@@ -618,7 +635,11 @@ def kernel_phase(cf, torch):
                        True, True),
             "odd21": (2, 3, 3, 1600000, 1500000, 1 << 21, True, True),
             "scenes20": (64, 4, 1, 900000, FAST_SAMPLES[1 << 20], 1 << 20,
-                         True, True)}.items():
+                         True, True),
+            "fast23": (1, 4, 1, 6200000, FAST_SAMPLES[1 << 23], 1 << 23,
+                       True, True),
+            "fast24": (1, 4, 1, 12400000, FAST_SAMPLES[1 << 24], 1 << 24,
+                       True, True)}.items():
         draw("delay_sum", tag)
         base, tau, gains, snr, seeds, fade = scene_inputs(b, m, paths,
                                                           total, out)
@@ -658,7 +679,10 @@ def kernel_phase(cf, torch):
     # the column pass): "mics11", 11 mics at 65,536, whose strips do not
     # fit ``gcc_rows``; the 23.7 s recording's 4 mics and 8 mics at 2^21, 4
     # mics at 2^22; 4 mics of an 18 s recording at 2^20 (DEFAULT_CONFIG's
-    # full core) and 8 mics at 2^18.  Through them in one block (2 device
+    # full core) and 8 mics at 2^18; past 2^22 a 95 s recording's 4 and 8
+    # mics at 2^23 (2,048 x 4,096: strips of 8 columns, 4 rows) and a 190
+    # s recording's 4 at 2^24 (4,096 x 4,096: 4 and 4) under
+    # ``max_expected_delay=None``.  Through them in one block (2 device
     # kernels): 128 scenes of 16 mics at 4,096.
     for tag, (b, m, length, nfft, band) in {
             "api": (None, 4, N, NFFT, (300.0, 3400.0)),
@@ -677,7 +701,10 @@ def kernel_phase(cf, torch):
                           (300.0, 3400.0)),
             "spectra18": (None, 8, 200000, 1 << 18, (300.0, 3400.0)),
             "spectra_block": (MULTI_SCENES, 16, 4000, 4096,
-                              (300.0, 3400.0))}.items():
+                              (300.0, 3400.0)),
+            "split23": (None, 4) + SPLIT23 + (None,),
+            "split23_8": (None, 8) + SPLIT23 + ((300.0, 3400.0),),
+            "split24": (None, 4) + SPLIT24 + (None,)}.items():
         draw("gcc_all_pairs", tag)
         pi, pj = pairs(m)
         sig = (randn(m, length) if b is None
@@ -706,8 +733,8 @@ def kernel_phase(cf, torch):
     # api fast path's single scene (wq 21), an odd edge shape, the short
     # sweep's 512 scenes at 2,048 and the chunks at 512 (one device kernel
     # a launch, ``window_block``).  Through the mic rows' spectra: the
-    # api fast path's single scene of 4 mics at 2^20, 2^21 and 2^22 (18 s
-    # to 68 s recordings; 4 device kernels a call, ``window_cols`` last)
+    # api fast path's single scene of 4 mics at 2^20 to 2^24 (18 s to 272 s
+    # recordings; 4 device kernels a call, ``window_cols`` last)
     # and 512 scenes of 12 mics at 4,096 (2 device kernels, ``corr_block``
     # with the window's epilogue).
     for tag, (b, m, length, nfft, wq) in {
@@ -721,7 +748,9 @@ def kernel_phase(cf, torch):
             "fast20": (1, 4, FAST_SAMPLES[1 << 20], 1 << 20, 21),
             "fast21": (1, 4, FAST_SAMPLES[1 << 21], 1 << 21, 21),
             "fast22": (1, 4, FAST_SAMPLES[1 << 22], 1 << 22, 21),
-            "spectra_block": (SWEEP_SCENES, 12, 4000, 4096, 2)}.items():
+            "spectra_block": (SWEEP_SCENES, 12, 4000, 4096, 2),
+            "fast23": (1, 4, FAST_SAMPLES[1 << 23], 1 << 23, 21),
+            "fast24": (1, 4, FAST_SAMPLES[1 << 24], 1 << 24, 21)}.items():
         draw("gcc_windowed", tag)
         pi, pj = pairs(m)
         sig = randn(b, m, length).contiguous()
@@ -1023,12 +1052,17 @@ def kernel_phase(cf, torch):
     # 131,072 (both on the split, 2 device kernels a call); edge: three row
     # pairs in one block (1); above 2^20 the single pair of a 23.7 s
     # recording at 2^21 and of 2,000,000 samples at 2^22 (the split with
-    # strips of 8, 2 device kernels a call).
+    # strips of 8, 2 device kernels a call), of 4,200,000 at 2^23 (8
+    # columns, 4 rows) and 8,400,000 at 2^24 (4 and 4), 2 device kernels
+    # a call; of 16,800,000 at 2^25 on the radix-2 passes.
     for tag, (rows_n, length, nfft) in {"main": (1, N, NFFT),
                                         "edge": (3, 3000, 4096),
                                         "no_gate": (1, N, 2 * NFFT),
                                         "long": (1, LONG_SAMPLES, LONG_NFFT),
-                                        "long22": (1,) + LONG22}.items():
+                                        "long22": (1,) + LONG22,
+                                        "split23": (1,) + SPLIT23,
+                                        "split24": (1,) + SPLIT24,
+                                        "passes25": (1,) + PASSES25}.items():
         draw("whitened_corr", tag)
         spec = cf.fft_real_plain(randn(2 * rows_n, length), nfft)
         a, b = spec[:rows_n].contiguous(), spec[rows_n:].contiguous()
@@ -1076,6 +1110,10 @@ def kernel_phase(cf, torch):
             "fast20": (1, 4, 1, 900000, FAST_SAMPLES[1 << 20], 1 << 20, 21),
             "fast21": (1, 4, 1, 1600000, FAST_SAMPLES[1 << 21], 1 << 21, 21),
             "fast22": (1, 4, 1, 3100000, FAST_SAMPLES[1 << 22], 1 << 22,
+                       21),
+            "fast23": (1, 4, 1, 6200000, FAST_SAMPLES[1 << 23], 1 << 23,
+                       21),
+            "fast24": (1, 4, 1, 12400000, FAST_SAMPLES[1 << 24], 1 << 24,
                        21)}.items():
         draw("scene_windowed", tag)
         pi, pj = pairs(m)
@@ -1124,9 +1162,6 @@ def kernel_phase(cf, torch):
                        or 2 * ONE_BLOCK_KERNELS.get(tag, 0) or None)
         if tag == "main":
             results["scene_windowed"] = res
-    start = time.perf_counter()
-    rowdft_checks(torch)
-    log(f"K10 checks of phase 3: {time.perf_counter() - start:.1f} s")
     return results
 
 
@@ -1382,16 +1417,16 @@ def main_path_phase(cf, torch, slice_golden, sweep_golden, launches):
 # The long simulated scenes of phase 4 (seconds, the nfft of K3's render
 # and of K2's GCC there) and the kernels of K3's radix-2 render, which
 # none of them may run.
-LONG_SCENES = ((20, 1 << 20), (60, 1 << 22))
+LONG_SCENES = ((20, 1 << 20), (60, 1 << 22), (120, 1 << 23))
 K3_PASS_KERNELS = ("pack_rows", "stockham_pass", "render_mix")
 
 
 def long_scenes(cf, torch, launches, hold_spectra=True):
-    """Phase 4's long simulated scenes: the off-centre chirp scene at 20 s
-    and 60 s through the api's windowed fast path
-    (``analyze_correlation=False``): K3 renders at 2^20 and 2^22 through
-    the base rows' spectra, its finish spread over the card, and K2's GCC
-    goes through the mic rows' spectra.  For each, a cold and a warm
+    """Phase 4's long simulated scenes: the off-centre chirp scene at 20 s,
+    60 s and 120 s through the api's windowed fast path
+    (``analyze_correlation=False``): K3 renders at 2^20, 2^22 and 2^23
+    through the base rows' spectra, its finish spread over the card, and
+    K2's GCC goes through the mic rows' spectra.  For each, a cold and a warm
     call's wall time and one more call's device time by kernel, which
     holds no kernel of K3's or K2's radix-2 passes (``hold_spectra`` False
     only logs them, for an A/B against a tree that runs them); the TDOAs
@@ -3051,7 +3086,8 @@ K2_PASS_KERNELS = ("pack_rows", "stockham_pass", "gcc_cross",
 # Step 4's recordings at 44.1 kHz (no resampling): seconds, the path and
 # the nfft its GCC transforms at under DEFAULT_CONFIG.
 SPECTRA_RECORDINGS = ((16, "full core", 1 << 20), (16, "fast path", 1 << 20),
-                      (30, "fast path", 1 << 21), (60, "fast path", 1 << 22))
+                      (30, "fast path", 1 << 21), (60, "fast path", 1 << 22),
+                      (120, "fast path", 1 << 23))
 
 
 def _noise_recording(seed, fs, n, delays, prefix):
@@ -3174,7 +3210,7 @@ def long_recording(cf, torch, launches, hold_split=True):
 # and noise null transform at 2^23 under ``max_expected_delay=None``
 # (next_pow2(2n - 1)); and the device kernels of K4a's and K6's radix-2
 # passes (``palt_fft_real`` and ``palt_noise_bootstrap_peaks`` at n1 = 0)
-# that K1's passes there do not run too.
+# that K1's passes do not run too.
 REC23_SECONDS = 60
 REC23_DELAYS = (0, 22, 56, 89)
 K4A_K6_PASS_KERNELS = ("split_spectra", "noise_first_pass", "boot_whiten",
@@ -3187,12 +3223,12 @@ def recording23(cf, torch, launches, hold_split=True):
     and read back without resampling, localized under
     ``max_expected_delay=None`` with the noise null at ``LONG_DRAWS`` draws
     a pair: nfft 2^23, K4a and K6 on their split past 2^22 (2,048 x 4,096),
-    K1 on its radix-2 passes.  Each TDOA within 0.5 samples of its injected
-    delay; then a second, warm call's wall time and one more call's device
-    time by kernel (``torch.profiler``), which holds no kernel of K4a's or
-    K6's passes (``K4A_K6_PASS_KERNELS``; ``hold_split`` False only logs
-    them, for an A/B against a tree that runs them); K1's pass kernels
-    (``K1_PASS_KERNELS``) are logged, not held."""
+    K1 through its mic rows' spectra on that split.  Each TDOA within 0.5
+    samples of its injected delay; then a second, warm call's wall time
+    and one more call's device time by kernel (``torch.profiler``), which
+    holds no kernel of K4a's, K6's or K1's passes
+    (``K4A_K6_PASS_KERNELS``, ``K1_PASS_KERNELS``; ``hold_split`` False
+    only logs them, for an A/B against a tree that runs them)."""
     from pyaudiolocalization_tpu_torch import api
     n = int(FS) * REC23_SECONDS
     paths = _noise_recording(60, FS, n, REC23_DELAYS, "chip_smoke_rec23_")
@@ -3205,26 +3241,26 @@ def recording23(cf, torch, launches, hold_split=True):
         raise AssertionError(f"{name} misses nfft {SPLIT23[1]}")
     dev = _localize_recording(cf, torch, launches, name, paths, None,
                               _pair_delays(REC23_DELAYS), "files")
-    passes = [k for k in dev if any(p in k for p in K4A_K6_PASS_KERNELS)]
+    passes = [k for k in dev if any(
+        p in k for p in K4A_K6_PASS_KERNELS + K1_PASS_KERNELS)]
     if passes and hold_split:
-        raise AssertionError(f"{name} ran K4a's or K6's radix-2 passes: "
-                             f"{passes}")
-    log(f"{name}: K4a's and K6's radix-2 pass kernels in the trace: "
-        f"{passes or 'none'}; K1's (on its passes at 2^23): "
-        f"{[k for k in dev if any(p in k for p in K1_PASS_KERNELS)]}")
+        raise AssertionError(f"{name} ran K4a's, K6's or K1's radix-2 "
+                             f"passes: {passes}")
+    log(f"{name}: K4a's, K6's and K1's radix-2 pass kernels in the trace: "
+        f"{passes or 'none'}")
 
 
 def spectra_recordings(cf, torch, launches, hold_spectra=True):
     """Step 4: 4-mic recordings at 44.1 kHz written by the port's
     write_wav and read back (no resampling), whose GCC transforms at 2^20
-    to 2^22 under DEFAULT_CONFIG, where K1's and K2's GCC go through the
+    to 2^23 under DEFAULT_CONFIG, where K1's and K2's GCC go through the
     mic rows' spectra (``SPECTRA_RECORDINGS``): a 16 s recording on the
     full core (K1 at 2^20, the permutation null's K4a and K4b at
-    ``LONG_DRAWS`` draws a pair), and 16,
-    30 and 60 s ones on the windowed fast path (K2 at 2^20, 2^21 and
-    2^22).  For each, each TDOA within 0.5 samples of its injected delay;
-    then a warm call's wall time and one more call's device time by
-    kernel, which holds no kernel of K1's or K2's radix-2 passes
+    ``LONG_DRAWS`` draws a pair), and 16, 30, 60 and 120 s ones on the
+    windowed fast path (K2 at 2^20, 2^21, 2^22 and 2^23).  For each, each
+    TDOA within 0.5 samples of its injected delay; then a warm call's
+    wall time and one more call's device time by kernel, which holds no
+    kernel of K1's or K2's radix-2 passes
     (``K1_PASS_KERNELS``, ``K2_PASS_KERNELS``; ``hold_spectra`` False only
     logs them, for an A/B against a tree that runs them)."""
     import os

@@ -36,7 +36,7 @@ namespace {
 
 constexpr int kRowThreads = 1024;
 // The GCC routes of K1, K2 and K5 (``cuda_fft.gcc_route`` picks one for
-// (nfft, mics), the same for the three): the radix-2 passes (above 2^22),
+// (nfft, mics), the same for the three): the radix-2 passes (above 2^24),
 // one block a scene, the split with `gcc_rows`, the split through the mic
 // rows' spectra, and one block a packed cross row through the spectra.
 // K3's render stage, K5's too, takes the first four (``cuda_fft.
@@ -233,20 +233,16 @@ cudaError_t with_strip(int s2, Launch launch) {
 }
 
 // The same for the strips of the split's column passes (K4a's, K4b's,
-// K6's, K9's and the GCCs' spectra route's) and of K4b's, K6's and
-// `corr_rows`' row passes (K9's, and K1's, K2's and K5's on the spectra
-// route): 16 (kStrip) up to n1 (n2) = 1,024, 8 at 2,048, and (kFour, the
-// split of K4a, K4b and K6 above 2^22) 4 at 4,096
-// (``cuda_fft.split_strips``).  Only kFour's callers instantiate their
-// kernels at 4: the other routes stop at 2^22.
-template <bool kFour = false, typename Launch>
+// K6's and the spectra routes') and of its one-strip row passes (K4b's
+// and K6's `boot_rows`, and the spectra routes' `corr_rows` and
+// `render_spec_rows`): 16 (kStrip) up to n1 (n2) = 1,024, 8 at 2,048 and
+// 4 at 4,096 (``cuda_fft.split_strips``, ``spectra_plan``).
+template <typename Launch>
 cudaError_t with_split_strip(int strip, Launch launch) {
   if (strip == palt::kStrip)
     return launch(std::integral_constant<int, palt::kStrip>());
   if (strip == 8) return launch(std::integral_constant<int, 8>());
-  if constexpr (kFour) {
-    if (strip == 4) return launch(std::integral_constant<int, 4>());
-  }
+  if (strip == 4) return launch(std::integral_constant<int, 4>());
   return cudaErrorInvalidValue;
 }
 
@@ -273,7 +269,7 @@ cudaError_t with_split_strip(int strip, Launch launch) {
 // KB), past `block_fft`'s kElems * 1024 points and a block's 227 KB, so
 // the host takes 8 (n1 * 8 = 16,384 points, 164-172 KB: 64 bytes, two
 // 32-byte sectors, of each row a strip reads), and pass 2 strips of 8 rows
-// at n2 = 2,048.  Above 2^22 (K4a, K4b and K6 only) the long side goes to
+// at n2 = 2,048.  Above 2^22 (every kernel on the split) the long side goes to
 // the rows, n1 <= n2: 2048 x 4096 at 2^23 keeps the 8-column strips (184
 // KB) and takes pass-2 strips of 4 rows (2 rows k1 and their partners),
 // 4096 x 4096 at 2^24 strips of 4 columns (208 KB; one 32-byte sector a
@@ -893,12 +889,12 @@ boot_block(const float2* __restrict__ s1, Load load, int rows, int n,
 //
 // A row pass holds S rows k1 of a packed row's pass-1 output Y (n1 x n2)
 // in a strip of shared memory, sequence stride ld = n2 + 1 (odd:
-// conflict-free columns; `row_ld` in K4b's and K6's): block b's slot r
-// holds row pair_row(b, r), half
-// of them the partners n1 - k1 of the other half, so that every bin's
-// mirror n - k lies in the same block.  Up to S * n2 threads.  S = kStrip
-// (16) but in K4b's, K6's and `corr_rows`' row pass at n2 = 2,048, which
-// holds 8, and in K4b's and K6's at 4,096, which holds 4.
+// conflict-free columns; `row_ld` in the one-strip row passes, `boot_rows`,
+// `corr_rows` and `render_spec_rows`): block b's slot r holds row
+// pair_row(b, r), half of them the partners n1 - k1 of the other half, so
+// that every bin's mirror n - k lies in the same block.  Up to S * n2
+// threads.  S = kStrip (16) but in the one-strip row passes at n2 = 2,048,
+// which hold 8, and at 4,096, which hold 4.
 
 // Mirror pair t of a row pass's block b (t < pair_tasks(b, n2)), the maps
 // of `fft_real_rows`: bin (r, k2) of a first-half slot (row k1 < n1/2)
@@ -1158,17 +1154,17 @@ cudaError_t boot_split(const float2* s1, Load load, int rows, int n, int n1,
     return cudaGetLastError();
   }
   const int n2 = n / n1;
-  err = with_split_strip<true>(cs, [&](auto strip) {
+  err = with_split_strip(cs, [&](auto strip) {
     return cols_launch<decltype(strip)::value>(load, packed, n1, n2, tw, buf,
                                                s);
   });
   if (err != cudaSuccess) return err;
-  err = with_split_strip<true>(rs, [&](auto strip) {
+  err = with_split_strip(rs, [&](auto strip) {
     return boot_rows_launch<decltype(strip)::value>(s1, rows, n1, n2, eps, tw,
                                                     buf, out, s);
   });
   if (err != cudaSuccess) return err;
-  return with_split_strip<true>(cs, [&](auto strip) {
+  return with_split_strip(cs, [&](auto strip) {
     constexpr int S = decltype(strip)::value;
     const cudaError_t e = palt::allow_smem<boot_cols<S>>();
     if (e != cudaSuccess) return e;
@@ -1643,9 +1639,9 @@ finish_spread(float2* z, int rows, int n, int mics, int out_len,
 // the mic count, for K3, K2 and K5 alike: the rows routes); up to 4,096
 // points one block holds a packed
 // base row (`render_block`) or a scene (`window_block`, where its rows
-// fit).  Elsewhere up to 2^22 both stages go through spectra on the
+// fit).  Elsewhere up to 2^24 both stages go through spectra on the
 // split: the render through the base rows' (`render_spectra`), the GCC
-// through the mic rows' (`window_route`); above 2^22 both run the radix-2
+// through the mic rows' (`window_route`); above 2^24 both run the radix-2
 // passes (`render_stage`, `window_stage`).  Three launches a stage on the
 // split with two-strip row passes:
 //
@@ -1748,10 +1744,14 @@ render_rows(const float* __restrict__ tau, const float* __restrict__ gain,
 // (`pair_task`, so that the reads run over consecutive bins) times
 // `mic_response`, stored as the Hermitian pair (`store_pair`); then the
 // inverse row DFTs and the conjugate twiddle into z.  One strip at any
-// mic count, of S = 16 rows (8 at n2 = 2,048: 172 KB), where
-// `render_rows`' two strips pass a block's shared memory (from 2^20).
-// The grid holds a block for each strip of each packed mic row, 128 to
-// 512 blocks for one scene of 4 mics, so it needs no `row_groups`.
+// mic count, of S = 16 rows (8 at n2 = 2,048: 172 KB; 4 at 4,096: 192-208
+// KB), at the bank-spread stride `row_ld`, where `render_rows`' two
+// strips pass a block's shared memory (from 2^20).  The grid holds a
+// block for each strip of each packed mic row, 128 to 1,024 blocks for
+// one scene of 4 mics, so it needs no `row_groups`.  Above 2^20 the
+// tables come from the contiguous copies (`stage_split_tables_of`).  A
+// block runs fft_threads(n2, S) = 1,024 threads: 512 threads of twice the
+// points measured 3-12 % slower from 2^21 to 2^24 (PERF.md).
 template <int S>
 __global__ void __launch_bounds__(1024)
 render_spec_rows(const float2* __restrict__ spec,
@@ -1763,7 +1763,7 @@ render_spec_rows(const float2* __restrict__ spec,
   float2* lo = stw + (n2 >> 1);
   float2* hi = lo + n1;
   float2* work = hi + n2;
-  const int ld = n2 + 1;
+  const int ld = row_ld<S>(n2);  // conflict-free half-warps
   const int n = n1 * n2;
   const int pm = blockIdx.y;
   const int b = blockIdx.x;
@@ -1774,8 +1774,8 @@ render_spec_rows(const float2* __restrict__ spec,
   const float2* sb = spec + (size_t)((two ? ra + 1 : ra) / mics) * bins;
   const float* ta = tau + (size_t)ra * paths;
   const float* ga = gain + (size_t)ra * paths;
-  palt::stage_twiddles(stw, tw, n2, n1);
-  stage_split_tables(lo, hi, tw, n1, n2);
+  stage_split_twiddles<split_where<S>()>(stw, tw, n1, n2, true);
+  stage_split_tables_of<split_where<S>()>(lo, hi, tw, n1, n2);
   const int tasks = pair_tasks<S>(b, n2);
   for (int t = threadIdx.x; t < tasks; t += blockDim.x) {
     const PairTask p = pair_task<S>(t, b, n1, n2, ld);
@@ -1787,13 +1787,15 @@ render_spec_rows(const float2* __restrict__ spec,
     store_pair(work, p, n, ya, yb);
   }
   palt::block_fft<S>(work, 1, ld, n2, stw, -1.0f);
-  store_rows<S>(work, z + (size_t)pm * n, lo, hi, b, n1, n2);
+  store_rows<S>(work, z + (size_t)pm * n, lo, hi, b, n1, n2, ld);
 }
 
 // Render pass 3.  Grid (n2 / S column strips, packed mic rows): the
 // inverse column DFTs; sample n2*j1 + j2 goes back to the address the
 // strip read it from, which is its natural place.  S = kStrip (16)
-// columns, 8 at n1 = 2,048 (``cuda_fft.split_strips``).
+// columns, 8 at n1 = 2,048, 4 at 4,096 (``cuda_fft.spectra_plan``); the
+// strips below 16 (above 2^20) read the n1-point sub-twiddles from the
+// contiguous copy, as `boot_cols`.
 template <int S>
 __global__ void __launch_bounds__(1024)
 render_cols(int n1, int n2, const float2* __restrict__ tw, float2* z) {
@@ -1801,7 +1803,7 @@ render_cols(int n1, int n2, const float2* __restrict__ tw, float2* z) {
   float2* buf = stw + (n1 >> 1);
   const int c0 = blockIdx.x * S;
   float2* zc = z + (size_t)blockIdx.y * (size_t)(n1 * n2);
-  palt::stage_twiddles(stw, tw, n1, n2);
+  stage_split_twiddles<(S < palt::kStrip ? 1 : 0)>(stw, tw, n1, n2, false);
   cols_inverse<S>(zc, buf, stw, n1, n2, c0);
   for (int idx = threadIdx.x; idx < n1 * S; idx += blockDim.x)
     zc[(size_t)(idx / S) * n2 + c0 + idx % S] = buf[idx];
@@ -1920,8 +1922,10 @@ __device__ __forceinline__ void arg_unkey(unsigned long long key, float& v,
 // The row's last block (counted in count) sums the partials in block
 // order and writes the statistics: no float atomics, so the result does
 // not depend on the order in which the blocks run.  S = kStrip (16)
-// columns a strip, 8 at n1 = 2,048 (the spectra route's,
-// ``cuda_fft.split_strips``).
+// columns a strip, 8 at n1 = 2,048, 4 at 4,096 (the spectra route's,
+// ``cuda_fft.spectra_plan``: up to 1,024 blocks a row at 2^24, whose
+// partials the last block sums in order); the strips below 16 read the
+// n1-point sub-twiddles from the contiguous copy.
 template <int S>
 __global__ void __launch_bounds__(1024)
 window_cols(const float2* __restrict__ zc, int num_pairs, int couples,
@@ -1940,7 +1944,7 @@ window_cols(const float2* __restrict__ zc, int num_pairs, int couples,
   const bool two = p0 + 1 < num_pairs;
   const int c0 = blockIdx.x * S;
   const int nb = gridDim.x;
-  palt::stage_twiddles(stw, tw, n1, n2);
+  stage_split_twiddles<(S < palt::kStrip ? 1 : 0)>(stw, tw, n1, n2, false);
   cols_inverse<S>(zc + (size_t)row_c * n, buf, stw, n1, n2, c0);
   const float scale = 1.0f / (float)n;
   const size_t q0 = (size_t)scene * num_pairs + p0;
@@ -2048,7 +2052,7 @@ cudaError_t render_split(const float* base, int scenes, int len,
   return render_cols_launch<kStrip>((rows + 1) / 2, n1, n2, tw, z, s);
 }
 
-// The render stage through the base rows' spectra (2^20 <= n <= 2^22, the
+// The render stage through the base rows' spectra (2^20 <= n <= 2^24, the
 // split n = n1 * n2), where `render_rows`' two strips do not fit: K4a's
 // two passes over the base rows (two scenes a packed row) into their half
 // spectra spec (scenes, n/2 + 1) through zb (ceil(scenes / 2), n; may be
@@ -2080,7 +2084,7 @@ cudaError_t render_spectra(const float* base, int scenes, int len,
     const cudaError_t e = palt::allow_smem<render_spec_rows<S>>();
     if (e != cudaSuccess) return e;
     render_spec_rows<S><<<dim3(n1 / S, packed), palt::fft_threads(n2, S),
-                          (n2 / 2 + n1 + n2 + S * (n2 + 1)) *
+                          (n2 / 2 + n1 + n2 + S * row_ld<S>(n2)) *
                               (int)sizeof(float2),
                           s>>>(spec, tau, gain, rows, mics, paths, n1, n2,
                                tw, z);
@@ -2188,8 +2192,8 @@ cudaError_t gcc_split(Load load, int scenes, int mics, const int* pairs_i,
 //      65,536): K4a's pass 1 over the mic rows; `gcc_rows`, which holds a
 //      strip of every packed mic row a scene spans and one more, (mics +
 //      1) / 2 + 1 strips; `corr_cols` (K1) or `window_cols` (K2, K5).
-// spectra (8,192 to 2^22 where `gcc_rows` does not fit, so at 2^20 to
-//      2^22 at any mic count):  K4a's two passes over the mic rows into
+// spectra (8,192 to 2^24 where `gcc_rows` does not fit, so at 2^20 to
+//      2^24 at any mic count):  K4a's two passes over the mic rows into
 //      their natural-order spectra (scenes * mics, n/2 + 1); `corr_rows`
 //      with `PairIndexLoad`, which reads rows scene * mics + pairs_i[p]
 //      and scene * mics + pairs_j[p] of them into the packed cross rows
@@ -2200,7 +2204,7 @@ cudaError_t gcc_split(Load load, int scenes, int mics, const int* pairs_i,
 //      `fft_real_block` into the spectra; `corr_block` with
 //      `PairIndexLoad`, a block a packed cross row, and K1's (`CorrOut`)
 //      or K2's (`WindowOut`) epilogue.
-// passes (above 2^22):  the radix-2 passes through device memory.
+// passes (above 2^24):  the radix-2 passes through device memory.
 //
 // K9:  `corr_rows` with `RowPairLoad` (rows 2c and 2c + 1 of a and b),
 //      `corr_cols`; `corr_block` with `RowPairLoad` up to 4,096.
@@ -2210,8 +2214,9 @@ cudaError_t gcc_split(Load load, int scenes, int mics, const int* pairs_i,
 // inverse row DFTs and the conjugate twiddle.  `corr_cols` is pass 1
 // mirrored: the inverse column DFTs, times 1/n, written in natural order,
 // the real part to pair 2c and the imaginary part to pair 2c + 1.  The
-// strips are K4a's (``cuda_fft.split_strips``): 16 columns and 16 rows up
-// to 1,024 x 1,024, 8 columns at n1 = 2,048 and 8 rows at n2 = 2,048.
+// strips are ``cuda_fft.spectra_plan``'s: 16 columns and 16 rows up
+// to 1,024 x 1,024, 8 columns at n1 = 2,048 and 8 rows at n2 = 2,048, 4
+// rows at n2 = 4,096 (2^23) and 4 columns at n1 = 4,096 (2^24).
 // Bound: device memory (the rows' read and the correlations' or windows'
 // write, plus on the split one write and one read of each packed buffer a
 // pass, and the spectra on the spectra routes) and, in the row passes,
@@ -2234,7 +2239,8 @@ corr_cols(const float2* __restrict__ zc, int num_pairs, int couples, int n1,
   const int p0 = 2 * (rc - scene * couples);
   const bool two = p0 + 1 < num_pairs;
   const int c0 = blockIdx.x * S;
-  palt::stage_twiddles(stw, tw, n1, n2);
+  // Column strips below 16 occur only above 2^20, of 16 only up to it.
+  stage_split_twiddles<(S < palt::kStrip ? 1 : 0)>(stw, tw, n1, n2, false);
   cols_inverse<S>(zc + (size_t)rc * n, buf, stw, n1, n2, c0);
   const float scale = 1.0f / (float)n;
   float* o0 = out + ((size_t)scene * num_pairs + p0) * (size_t)n;
@@ -2316,9 +2322,11 @@ struct PairIndexLoad {
 // natural-order spectra (one task a mirror pair, `pair_task`, so that
 // reads run over consecutive bins), then the inverse row DFTs and the
 // conjugate twiddle into zc.  S = 16 rows a strip, 8 at n2 = 2,048 (172
-// KB).  Where keys is not null (K2's and K5's spectra route), block (0,
-// c) clears row c's two argmax keys and its block counter for
-// `window_cols`.
+// KB), 4 at 4,096 (192-208 KB), at the bank-spread stride `row_ld`.
+// Above 2^20 the tables come from the contiguous copies
+// (`stage_split_tables_of`).  Where keys is not null (K2's and K5's
+// spectra route), block (0, c) clears row c's two argmax keys and its
+// block counter for `window_cols`.
 template <int kMaxThreads, int kMinBlocks, int S, class Load>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 corr_rows(Load load, const float* __restrict__ band, float eps, int n1,
@@ -2329,7 +2337,7 @@ corr_rows(Load load, const float* __restrict__ band, float eps, int n1,
   float2* lo = stw + (n2 >> 1);
   float2* hi = lo + n1;
   float2* work = hi + n2;
-  const int ld = n2 + 1;
+  const int ld = row_ld<S>(n2);  // conflict-free half-warps
   const int n = n1 * n2;
   const int c = blockIdx.y;
   const int blk = blockIdx.x;
@@ -2338,8 +2346,8 @@ corr_rows(Load load, const float* __restrict__ band, float eps, int n1,
     if (threadIdx.x == 0) count[c] = 0u;
   }
   const CorrPair src = load.pair(c, (size_t)(n >> 1) + 1);
-  palt::stage_twiddles(stw, tw, n2, n1);
-  stage_split_tables(lo, hi, tw, n1, n2);
+  stage_split_twiddles<split_where<S>()>(stw, tw, n1, n2, true);
+  stage_split_tables_of<split_where<S>()>(lo, hi, tw, n1, n2);
   const int tasks = pair_tasks<S>(blk, n2);
   for (int t = threadIdx.x; t < tasks; t += blockDim.x) {
     const PairTask p = pair_task<S>(t, blk, n1, n2, ld);
@@ -2354,12 +2362,14 @@ corr_rows(Load load, const float* __restrict__ band, float eps, int n1,
     store_pair(work, p, n, r0, r1);
   }
   palt::block_fft<S>(work, 1, ld, n2, stw, -1.0f);
-  store_rows<S>(work, zc + (size_t)c * n, lo, hi, blk, n1, n2);
+  store_rows<S>(work, zc + (size_t)c * n, lo, hi, blk, n1, n2, ld);
 }
 
 // Pass 2 over `rows_c` packed cross rows of load into zc, strips of rs
-// rows (16 or 8); at n2 <= 256 (16 rows) two blocks an SM, as K4b's.
-// keys and count: K2's (null for K1 and K9).
+// rows (16, 8 or 4; fft_threads(n2, S) threads, 1,024 from 2^20: 512
+// threads of twice the points measured 3-12 % slower from 2^21 to 2^24,
+// PERF.md); at n2 <= 256 (16 rows) two blocks an SM, as K4b's.  keys and
+// count: K2's (null for K1 and K9).
 template <class Load>
 cudaError_t corr_rows_launch(Load load, int rows_c, const float* band,
                              float eps, int n1, int n2, int rs,
@@ -2370,9 +2380,10 @@ cudaError_t corr_rows_launch(Load load, int rows_c, const float* band,
     constexpr int S = decltype(strip)::value;
     const dim3 grid(n1 / S, rows_c);
     const int threads = palt::fft_threads(n2, S);
-    const int smem = (n2 / 2 + n1 + n2 + S * (n2 + 1)) * (int)sizeof(float2);
+    const int smem =
+        (n2 / 2 + n1 + n2 + S * row_ld<S>(n2)) * (int)sizeof(float2);
     cudaError_t err;
-    if constexpr (S == palt::kStrip) {  // 8 rows only at n2 = 2,048
+    if constexpr (S == palt::kStrip) {
       if (n2 <= 256) {
         err = palt::allow_smem<corr_rows<256, 2, S, Load>>();
         if (err != cudaSuccess) return err;
@@ -2770,7 +2781,7 @@ cudaError_t gcc_all_split(const float* x, int scenes, int mics, int len,
   return corr_cols_launch(zc, scenes, num_pairs, n1, n2, tw, out, s);
 }
 
-// The spectra route's first three launches (8,192 <= n <= 2^22): K4a's
+// The spectra route's first three launches (8,192 <= n <= 2^24): K4a's
 // two passes over the mic rows given by load (rows scene * mics + mic)
 // into their natural-order spectra spec (scenes * mics, n/2 + 1) through
 // zm (ceil(scenes * mics / 2), n; may be the loader's buffer), then
@@ -3024,7 +3035,7 @@ int palt_fft_real(const float* x, int rows, int len, int n, int n1, int cs,
     return (int)fft_real_block_launch(RowLoad{x, rows, len}, rows, n, tw, out,
                                       s);
   const int n2 = n / n1;
-  const cudaError_t err = with_split_strip<true>(cs, [&](auto strip) {
+  const cudaError_t err = with_split_strip(cs, [&](auto strip) {
     return cols_launch<decltype(strip)::value>(RowLoad{x, rows, len}, packed,
                                                n1, n2, tw, buf, s);
   });
@@ -3207,8 +3218,8 @@ int palt_whiten(const float2* z, long long count, float eps, float2* out,
 // out (rows, n) circular correlations of whiten(a * conj(b)) * band,
 // scaled by 1/n (K1's back half with arbitrary row pairs).  n1 = 1: one
 // block a packed row (`corr_block`), no buffer; n1 > 1: the two launches of
-// the split n = n1 * n2 through z0, strips of cs columns and rs rows (16
-// or 8 each); n1 = 0: the radix-2 passes through z0 / z1.
+// the split n = n1 * n2 through z0, strips of cs columns and rs rows (16,
+// 8 or 4 each); n1 = 0: the radix-2 passes (n > 2^24) through z0 / z1.
 int palt_whitened_corr(const float2* a, const float2* b, int rows, int n,
                        int n1, int cs, int rs, const float* band, float eps,
                        const float2* tw, float2* z0, float2* z1, float* out,

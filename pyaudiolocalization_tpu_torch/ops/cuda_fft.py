@@ -18,10 +18,9 @@ delay_sum             bfly_delay_sum (:1851)                 memory: 1 to 8*
 whiten                pallas_kernels.phat_whiten_planes (:34) memory: 16 B/bin
 ===================== ====================================== ==================
 
-(*) Above 2^22 points K9, K1, K2, K3 and K5 run the radix-2 passes, and
-K4a, K4b and K6 above 2^24 (K4a: the packing, log2(nfft) passes and the
-split into the two spectra, 2 + log2(nfft) launches).  K1, K2 and K5's
-GCC take one route a shape
+(*) Above 2^24 points every transforming kernel runs the radix-2 passes
+(K4a: the packing, log2(nfft) passes and the split into the two spectra,
+2 + log2(nfft) launches).  K1, K2 and K5's GCC take one route a shape
 (``gcc_route``): 1 launch in one block a scene, 3 with ``gcc_rows``, 4
 through the mic rows' spectra on the split, 2 through them in one block.
 K3's render and K5's render stage take one route a length
@@ -46,11 +45,11 @@ and the GCCs' ``gcc_rows`` routes run it forward and back in three, the
 middle launch holding rows for both directions; K9, whose input is
 spectra, in two; the GCCs' spectra route K4a's two, then K9's two with a
 pair-indexed loader, and the render's K4a's two into the base rows'
-spectra, then a mix row pass and the column pass; up to 2^22 for K9 and
-the GCCs and renders of K1, K2, K3 and K5, whose strips narrow to 8 at
-2,048, and up to 2^24 for K4a, K4b and K6, whose strips narrow to 4 at
-4,096, ``split_strips``; ``split_plan`` gives each launch of theirs, with
-the row strips' bank-spread stride), so a transform reads
+spectra, then a mix row pass and the column pass; up to 2^24 for all of
+them, whose strips narrow to 8 at 2,048 and to 4 at 4,096,
+``split_strips``; ``split_plan`` gives each launch of K4a's, K4b's and
+K6's, ``spectra_plan`` each of the spectra routes', with the row strips'
+bank-spread stride), so a transform reads
 and writes each point once per launch (16 bytes a complex point) and is
 bound by device memory at that.  Up to 4,096 points the bootstraps, K9,
 the render (a packed base row a block) and the all-pairs and windowed
@@ -60,7 +59,7 @@ K3 is one launch there, K2 one or two and K5 two or three.  The others
 run radix-2 Stockham passes over rows in device memory, one launch and
 16 bytes a point per pass, about 16·log2(nfft) bytes per point and
 transform, and fuse their first or last pass into a prologue or
-epilogue: everything above 2^22 (for K4a, K4b and K6 above 2^24).
+epilogue: everything above 2^24.
 The design keeps the rest of the work out of device memory where the TPU
 kernels did: real rows are packed two to a complex transform, the whitening /
 ramp synthesis runs in one pass over the spectra, two real results share
@@ -105,21 +104,23 @@ from . import noise as noise_ops
 from . import signal as sig_ops
 
 PHAT_EPS = 1e-10
-# K4a: one block holds the packed row up to this length; the four-step
-# split of two on-chip transforms reaches 2048 x 2048 for K9 and the GCCs
-# and renders of K1, K2, K3 and K5 (FFT_REAL_MAX), with strips of 8 at
-# 2,048 (``split_strips``), 4096 x 4096 for K4a, K4b and K6
-# (FFT_SPLIT_MAX), with strips of 4 at 4,096, and 1024 x 1024 for the row
-# passes that hold more than one strip (STAGE_SPLIT_MAX): the GCCs'
-# ``gcc_rows`` route and the render's ``render_rows``, whose two strips fit
-# to 2^19; elsewhere the GCCs go through their mic rows' spectra
-# (``gcc_route``) and the render through its base rows' (``render_route``).
+# K4a: one block holds the packed row up to FFT_REAL_ONE_BLOCK; the
+# four-step split of two on-chip transforms reaches 4096 x 4096
+# (FFT_SPLIT_MAX) for every transforming kernel (K4a, K4b and K6, and the
+# spectra routes of K9, K1, K2, K3 and K5), with strips of 8 at 2,048 and
+# of 4 at 4,096 (``split_strips``); the split's long side is its columns
+# (n1 >= n2) up to SPLIT_COLS_LONG_MAX and its contiguous rows above
+# (``fft_real_split``); the row passes that hold more than one strip reach
+# 1024 x 1024 (STAGE_SPLIT_MAX): the GCCs' ``gcc_rows`` route and the
+# render's ``render_rows``, whose two strips fit to 2^19; elsewhere the
+# GCCs go through their mic rows' spectra (``gcc_route``) and the render
+# through its base rows' (``render_route``).
 FFT_REAL_ONE_BLOCK = 4096
-FFT_REAL_MAX = 1 << 22
+SPLIT_COLS_LONG_MAX = 1 << 22
 FFT_SPLIT_MAX = 1 << 24
 STAGE_SPLIT_MAX = 1 << 20
-# Rows a split row pass holds (kStrip, csrc/fft.cuh), the strips K4a's,
-# K4b's and K6's split may take, widest first (4 only above 2^22), the
+# Rows a split row pass holds (kStrip, csrc/fft.cuh), the strips the
+# split may take, widest first (4 only above 2^22), the
 # points one block's strip transform holds (kElems * 1024, ``block_fft``)
 # and the shared memory one block may opt in to on an H100 (227 KB).
 ROW_STRIP = 16
@@ -400,19 +401,22 @@ def fft_real_plain(x: torch.Tensor, nfft: int) -> torch.Tensor:
 
 
 def fft_real_split(nfft: int):
-    """(n1, n2) of K4a's four-step split nfft = n1 * n2: (1, nfft) up to
-    ``FFT_REAL_ONE_BLOCK`` (one block holds the packed row); up to
-    ``FFT_REAL_MAX`` n2 = 2^floor(log2(nfft) / 2) and n1 = nfft / n2 >=
-    n2: both at most 1024 up to ``STAGE_SPLIT_MAX`` (2^20), 2048 x 1024 at
-    2^21 and 2048 x 2048 at 2^22, where K4a's, K4b's and K6's strips narrow
-    to 8 (``split_strips``); above, the long side goes to the contiguous
-    rows, n1 = 2^floor(log2(nfft) / 2) <= n2: 2048 x 4096 at 2^23 (column
-    strips of 8 still read 64 bytes a row, row strips of 4) and 4096 x
-    4096 at ``FFT_SPLIT_MAX`` (2^24, strips of 4)."""
+    """(n1, n2) of the four-step split nfft = n1 * n2 of every transforming
+    kernel (K4a's passes, K4b's, K6's and the spectra routes'): (1, nfft)
+    up to ``FFT_REAL_ONE_BLOCK`` (one block holds the packed row); up to
+    ``SPLIT_COLS_LONG_MAX`` (2^22) the long side in the columns, n2 =
+    2^floor(log2(nfft) / 2) and n1 = nfft / n2 >= n2: both at most 1024 up
+    to ``STAGE_SPLIT_MAX`` (2^20), 2048 x 1024 at 2^21 and 2048 x 2048 at
+    2^22, where the strips narrow to 8 (``split_strips``); above, the long
+    side goes to the contiguous rows, n1 = 2^floor(log2(nfft) / 2) <= n2:
+    2048 x 4096 at 2^23 (column strips of 8 still read 64 bytes a row, row
+    strips of 4) and 4096 x 4096 at ``FFT_SPLIT_MAX`` (2^24, strips of
+    4).  ``SPLIT_COLS_LONG_MAX`` picks only that orientation: every kernel
+    runs the split up to ``FFT_SPLIT_MAX``."""
     if nfft <= FFT_REAL_ONE_BLOCK:
         return 1, nfft
     short = 1 << ((nfft.bit_length() - 1) // 2)
-    if nfft > FFT_REAL_MAX:
+    if nfft > SPLIT_COLS_LONG_MAX:
         return short, nfft // short
     return nfft // short, short
 
@@ -443,7 +447,8 @@ def _row_pass_smem(n1: int, n2: int, strips: int,
 
 def split_strips(n1: int, n2: int):
     """(columns a strip of a column pass holds, rows a strip of the row
-    pass holds) on K4a's, K4b's and K6's split n1 x n2: for each, the
+    pass holds) on the split n1 x n2 (K4a's, K4b's, K6's and the spectra
+    routes'): for each, the
     widest of ``SPLIT_STRIPS`` (16, 8, 4) whose strip holds at most
     ``BLOCK_POINTS`` points (``block_fft``'s kElems x 1024) and whose pass
     fits one block's shared memory (``SMEM_OPTIN``): the column pass's
@@ -517,6 +522,39 @@ def split_plan(nfft: int, packed: int = 1) -> SplitPlan:
         SplitPass(cs, 8 * (n1 // 2 + n1 * cs) + 128))
 
 
+class SpectraPlan(NamedTuple):
+    """The launches of the spectra routes at one shape (``spectra_plan``):
+    K4a's two passes into the spectra (``cols``, ``rows``; not K9's, whose
+    input is spectra), the row pass that forms each packed row from the
+    spectra (``spec_rows``: ``corr_rows`` for K9 and the GCCs of K1, K2
+    and K5, ``render_spec_rows`` for the renders of K3 and K5) and the
+    inverse column pass (``spec_cols``: ``corr_cols``, ``window_cols``,
+    ``render_cols``)."""
+    cols: SplitPass
+    rows: SplitPass
+    spec_rows: SplitPass
+    spec_cols: SplitPass
+
+
+def spectra_plan(nfft: int, packed: int = 1) -> SpectraPlan:
+    """Each launch of the spectra routes at nfft (8,192 to
+    ``FFT_SPLIT_MAX``) for ``packed`` packed rows in K4a's passes: K4a's
+    two (``split_plan``'s ``cols`` and ``rows``); the row pass, one strip
+    of ``split_strips``' rows at the bank-spread stride ``row_ld`` with
+    the n1- and n2-point tables (n2/2 + n1 + n2 complex, the bytes of
+    ``boot_rows``); the column pass, ``split_strips``' columns and the
+    n1/2 sub-twiddles (``window_cols`` adds 257 static bytes).  Above
+    2^20 these kernels read their tables from the contiguous copies of
+    ``_twiddles``; the row pass keeps ``fft_threads`` = 1,024 threads a
+    block there (512 of twice the points, as ``boot_rows``, measured 3-12
+    % slower on an H100; PERF.md)."""
+    plan = split_plan(nfft, packed)
+    n1, n2 = fft_real_split(nfft)
+    cs = plan.cols.strip
+    return SpectraPlan(plan.cols, plan.rows, plan.boot_rows,
+                       SplitPass(cs, 8 * (n1 // 2 + n1 * cs)))
+
+
 def _gcc_block_smem(nfft: int, mics: int) -> int:
     """Bytes of shared memory of a scene's GCC in one block (``gcc_block``,
     ``window_block``): the nfft/2 twiddles, the (mics + 1) // 2 packed mic
@@ -555,23 +593,32 @@ def gcc_route(nfft: int, mics: int) -> GccRoute:
       each packed mic row a scene's mics can span ((mics + 1) // 2) and
       one for the output, fit one block's shared memory (``SMEM_OPTIN``);
       never at 2^20, where two strips of 16 x 1,025 points pass it;
-    - elsewhere up to ``FFT_REAL_MAX`` (2^22), the split through the mic
+    - elsewhere up to ``FFT_SPLIT_MAX`` (2^24), the split through the mic
       rows' spectra at any mic count (K4a's two passes, ``corr_rows`` with
-      the pair-indexed loader, ``corr_cols`` or ``window_cols``), with
-      K4a's strips (``split_strips``: 16 and 16 up to 2^20, 8 columns from
-      n1 = 2,048 and 8 rows at n2 = 2,048);
-    - the radix-2 passes above."""
+      the pair-indexed loader, ``corr_cols`` or ``window_cols``), with the
+      strips of ``spectra_plan``: 16 and 16 up to 2^20, 8 columns from n1
+      = 2,048 and 8 rows at n2 = 2,048, 4 rows at n2 = 4,096 (2^23) and 4
+      columns at n1 = 4,096 (2^24);
+    - the radix-2 passes above, as every transforming kernel."""
     if nfft <= FFT_REAL_ONE_BLOCK:
         if _gcc_block_smem(nfft, mics) <= SMEM_OPTIN:
             return GccRoute(ROUTE_BLOCK, 1, 0, 0)
         return GccRoute(ROUTE_SPECTRA_BLOCK, 1, 0, 0)
-    if nfft > FFT_REAL_MAX:
+    if nfft > FFT_SPLIT_MAX:
         return GccRoute(ROUTE_PASSES, 0, 0, 0)
     n1, n2 = fft_real_split(nfft)
     if (nfft <= STAGE_SPLIT_MAX
             and _row_pass_smem(n1, n2, (mics + 1) // 2 + 1) <= SMEM_OPTIN):
         return GccRoute(ROUTE_ROWS, n1, 0, 0)
-    return GccRoute(ROUTE_SPECTRA, n1, *split_strips(n1, n2))
+    return _spectra_route(nfft)
+
+
+def _spectra_route(nfft: int) -> GccRoute:
+    """``ROUTE_SPECTRA`` at nfft with the split's n1 and the strips of
+    ``spectra_plan``'s column and row passes."""
+    plan = spectra_plan(nfft)
+    return GccRoute(ROUTE_SPECTRA, fft_real_split(nfft)[0],
+                    plan.spec_cols.strip, plan.spec_rows.strip)
 
 
 def render_route(nfft: int) -> GccRoute:
@@ -585,23 +632,24 @@ def render_route(nfft: int) -> GccRoute:
       row's) fit one block's shared memory (``SMEM_OPTIN``: to 2^19),
       the four-step split nfft = n1 * n2 of ``fft_real_split`` with
       ``render_rows`` (``ROUTE_ROWS``);
-    - elsewhere up to ``FFT_REAL_MAX`` (2^22), the split through the base
+    - elsewhere up to ``FFT_SPLIT_MAX`` (2^24), the split through the base
       rows' spectra (``ROUTE_SPECTRA``): K4a's two passes, the one-strip
-      mix row pass ``render_spec_rows`` and ``render_cols``, with K4a's
-      strips (``split_strips``: 16 and 16 at 2^20, 8 columns from n1 =
-      2,048 and 8 rows at n2 = 2,048);
-    - the radix-2 passes above (n1 = 0).
+      mix row pass ``render_spec_rows`` and ``render_cols``, with the
+      strips of ``spectra_plan`` (16 and 16 at 2^20, 8 columns from n1 =
+      2,048 and 8 rows at n2 = 2,048, 4 rows at n2 = 4,096 and 4 columns
+      at n1 = 4,096);
+    - the radix-2 passes above (n1 = 0), as every transforming kernel.
 
     The mic count does not enter: the render's row passes hold one or two
     strips at any mic count."""
     if nfft <= FFT_REAL_ONE_BLOCK:
         return GccRoute(ROUTE_BLOCK, 1, 0, 0)
-    if nfft > FFT_REAL_MAX:
+    if nfft > FFT_SPLIT_MAX:
         return GccRoute(ROUTE_PASSES, 0, 0, 0)
     n1, n2 = fft_real_split(nfft)
     if _row_pass_smem(n1, n2, 2) <= SMEM_OPTIN:
         return GccRoute(ROUTE_ROWS, n1, 0, 0)
-    return GccRoute(ROUTE_SPECTRA, n1, *split_strips(n1, n2))
+    return _spectra_route(nfft)
 
 
 def scene_stages(nfft: int, mics: int):
@@ -609,7 +657,7 @@ def scene_stages(nfft: int, mics: int):
     scene at nfft: the n1 of ``render_route`` and of ``gcc_route``, the
     routes of K3's render and of K2's windowed GCC (K5 runs each stage as
     K3 and K2 run it).  Both 1 up to 4,096, the split's n1 from 8,192 to
-    2^22, 0 (the radix-2 passes) above."""
+    2^24, 0 (the radix-2 passes) above."""
     return render_route(nfft).n1, gcc_route(nfft, mics).n1
 
 
@@ -627,13 +675,14 @@ def finish_groups(nfft: int, rows: int) -> int:
 
 
 def corr_schedule(nfft: int) -> int:
-    """n1 of K9's schedule at nfft, K4a's up to 2^22: 1, one block a
+    """n1 of K9's schedule at nfft, K4a's (``_split_n1``): 1, one block a
     packed row (``corr_block``), up to ``FFT_REAL_ONE_BLOCK``; the
-    four-step split of ``fft_real_split`` up to ``FFT_REAL_MAX`` (2^22; its
-    row pass holds one strip, of 16 rows or 8 at n2 = 2,048, and its column
-    pass strips of 16 columns or 8 at n1 = 2,048: ``split_strips``); 0, the
-    radix-2 passes, above (where K4a's split goes on to 2^24)."""
-    return fft_real_split(nfft)[0] if nfft <= FFT_REAL_MAX else 0
+    four-step split of ``fft_real_split`` up to ``FFT_SPLIT_MAX`` (2^24;
+    the spectra routes' last two launches, ``spectra_plan``: its row pass
+    holds one strip, of 16 rows, 8 at n2 = 2,048 or 4 at 4,096, and its
+    column pass strips of 16 columns, 8 at n1 = 2,048 or 4 at 4,096); 0,
+    the radix-2 passes, above."""
+    return _split_n1(nfft)
 
 
 def _copies(n1: int) -> int:
@@ -677,14 +726,21 @@ def _gcc_buffers(route: GccRoute, scenes: int, mics: int, couples: int,
         if route.kind == ROUTE_SPECTRA_BLOCK:
             return (0, 0, 0), (None, spec.data_ptr(), None, None), [spec]
         buf = _scratch(max(packed, cross), nfft, device)
-        s2 = fft_real_rows_strip(nfft // route.n1, packed)
-        return ((route.cols, s2, route.rows),
+        return (_spectra_strips(nfft, packed),
                 (buf.data_ptr(), spec.data_ptr(), buf.data_ptr(), None),
                 [buf, spec])
     copies = _copies(route.n1)
     spec0, spec1, bufs = _buffers(copies, packed, nfft, device)
     cpl0, cpl1, cross_bufs = _buffers(copies, cross, nfft, device)
     return (0, 0, 0), (spec0, spec1, cpl0, cpl1), bufs + cross_bufs
+
+
+def _spectra_strips(nfft: int, packed: int):
+    """(column strip, K4a's pass-2 strip, row strip) of the spectra routes
+    at nfft for ``packed`` packed rows in K4a's passes
+    (``spectra_plan``), as K1's, K2's, K3's and K5's entries take them."""
+    plan = spectra_plan(nfft, packed)
+    return plan.spec_cols.strip, plan.rows.strip, plan.spec_rows.strip
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -775,12 +831,13 @@ def whitened_corr(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
     row (bins 0..n/2, mirrored, real DC and Nyquist), the packed inverse,
     1/n and the split into the two rows.  By length (``corr_schedule``):
     up to ``FFT_REAL_ONE_BLOCK`` (4,096) one launch, a block per packed row
-    holding it in shared memory, no scratch; up to ``FFT_REAL_MAX`` (2^22)
+    holding it in shared memory, no scratch; up to ``FFT_SPLIT_MAX`` (2^24)
     two launches over one scratch buffer on K4b's four-step split — a row
     pass that gathers each strip's bins of ``a`` and ``b``, whitens and
     runs the inverse row DFTs, and K1's column pass, whose inverse column
-    DFTs write the rows in natural order (strips of 16 rows and columns, 8
-    at 2,048: ``split_strips``); above, the radix-2 passes.
+    DFTs write the rows in natural order (the spectra routes' last two
+    launches, ``spectra_plan``: strips of 16 rows and columns, 8 at 2,048,
+    4 at 4,096); above, the radix-2 passes.
     Bound by device memory (the spectra's read, the rows' write, one
     write and one read of the packed buffer on the split); a single pair's
     call by its launches' latency.  A batch beyond ``ROW_CHUNK`` row
@@ -801,7 +858,7 @@ def whitened_corr(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
     rows = a.shape[0]
     out = torch.empty((rows, nfft), dtype=torch.float32, device=dev)
     n1 = corr_schedule(nfft)
-    cols, strip = _split_strips(n1, nfft)
+    cols, _, strip = _spectra_strips(nfft, 1) if n1 > 1 else (0, 0, 0)
     chunks = _row_chunks(rows)
     z0, z1, _z = _buffers(_copies(n1), (chunks[0][1] + 1) // 2, nfft, dev)
     tw = _twiddles(nfft, str(dev))
@@ -874,20 +931,20 @@ def gcc_all_pairs(signals: torch.Tensor, pairs_i: Sequence[int],
       row; per couple the cross-spectra and the inverse row DFTs), and a
       column pass whose inverse column DFTs write the correlations in
       natural order;
-    - the spectra (8,192 to ``FFT_REAL_MAX``, 2^22, where ``gcc_rows``
+    - the spectra (8,192 to ``FFT_SPLIT_MAX``, 2^24, where ``gcc_rows``
       does not fit, at any mic count; every mic count from 2^20 on): four
       launches — K4a's two passes write the mic rows' natural-order
       spectra (scenes * M, nfft/2 + 1), K9's row pass reads rows scene * M
       + pairs_i[p] and scene * M + pairs_j[p] of them (the pair-indexed
       loader) into the packed cross rows, and the column pass as above;
-      the strips are K4a's (``split_strips``, ``fft_real_rows_strip``: 16
-      columns and rows up to 2^20; 8 columns, 16 rows at 2^21 and 8 at
-      2^22), and the cross rows reuse K4a's packed buffer;
+      the strips are ``spectra_plan``'s (16 columns and rows up to 2^20; 8
+      columns, 16 rows at 2^21 and 8 at 2^22; 8 and 4 at 2^23; 4 and 4 at
+      2^24), and the cross rows reuse K4a's packed buffer;
     - the spectra block (nfft <= 4,096 beyond 10 mics; 24 at 2,048): two
       launches, K4a's one-block transform of every mic row into the
       spectra, then K9's one-block kernel a packed cross row with the
       pair-indexed loader;
-    - above 2^22 the radix-2 passes through device memory.
+    - above 2^24 the radix-2 passes through device memory.
 
     A batch whose grids would exceed 65,535 rows launches over scene
     chunks (``scene_chunk``; the one-block routes have no such limit).
@@ -1000,10 +1057,11 @@ def gcc_windowed(signals: torch.Tensor, pairs_i: Sequence[int],
     inverse column DFTs end in the window and the statistics (per-block
     partials summed in block order by the row's last block, the argmax by
     a 64-bit atomic maximum that keeps the smallest index on ties);
-    elsewhere up to 2^22, four launches through the mic rows' spectra, as
+    elsewhere up to 2^24, four launches through the mic rows' spectra, as
     K1's: K4a's two passes, the pair-indexed row pass (which also clears
-    the argmax keys and block counters) and that column pass, with K4a's
-    strips (8 columns from 2^21).  Above 2^22 the radix-2 passes, the last
+    the argmax keys and block counters) and that column pass, with
+    ``spectra_plan``'s strips (8 columns from 2^21, 4 at 2^24).  Above 2^24
+    the radix-2 passes, the last
     one fused with the window and the statistics.  Bound by device
     memory.  A batch whose grids would exceed 65,535 rows launches over
     scene chunks (``scene_chunk``), in one block too, so that K2 chunks as
@@ -1284,9 +1342,7 @@ def _render_strips(route: GccRoute, scenes: int, nfft: int):
     (0, 0, 0) on the other routes."""
     if route.kind != ROUTE_SPECTRA:
         return 0, 0, 0
-    return (route.cols,
-            fft_real_rows_strip(nfft // route.n1, (scenes + 1) // 2),
-            route.rows)
+    return _spectra_strips(nfft, (scenes + 1) // 2)
 
 
 def _finish_scratch(nfft: int, scenes: int, chunk: int, mics: int, device):
@@ -1330,11 +1386,12 @@ def delay_sum(base: torch.Tensor, tau: torch.Tensor, gains: torch.Tensor,
     from 8,192 to 2^19, K4b's four-step schedule in three launches, K4a's
     column pass over the bases, a row pass that holds a base strip, mixes
     each of its mic rows in turn and runs their inverse row DFTs, and the
-    inverse column DFTs in place; from 2^20 to 2^22, where that row pass's
+    inverse column DFTs in place; from 2^20 to 2^24, where that row pass's
     two strips do not fit, four: K4a's two passes write the bases' half
     spectra, a row pass mixes each packed mic row's strip from them (one
     strip at any mic count) and runs its inverse row DFTs, and the inverse
-    column DFTs (8-wide strips at 2,048); above 2^22 the radix-2 passes.
+    column DFTs (``spectra_plan``'s strips: 8 wide at 2,048, 4 at 4,096);
+    above 2^24 the radix-2 passes.
     Then the finish: a block a mic row (``render_finalize``), or, where a
     call's rows from 2^20 are too few to fill the card, spread over
     ``finish_groups`` blocks a packed mic row in up to four launches
@@ -1415,7 +1472,7 @@ def scene_windowed(base: torch.Tensor, tau: torch.Tensor,
     65,536 three launches each on the four-step split, with the finalize
     between, seven in all; where ``gcc_rows`` does not fit (2^20 and up
     at any mic count) the GCC's four launches through the mic rows'
-    spectra; from 2^20 to 2^22 the render's four through the base rows'
+    spectra; from 2^20 to 2^24 the render's four through the base rows'
     spectra and the finish's one to four (``finish_groups``); the
     intermediates in device memory and L2.  The render
     writes each finished signal as the packed forward input of the GCC
@@ -1460,7 +1517,7 @@ def scene_windowed(base: torch.Tensor, tau: torch.Tensor,
     # packed mic rows' buffer through the base rows' spectra); the packed
     # mic rows, which hold the finished signals between the stages, once
     # where the render does not run the passes (the GCC runs them only
-    # above 2^22, where the render does too), the first copy large enough
+    # above 2^24, where the render does too), the first copy large enough
     # for the cross rows on the GCC's spectra route (they go there once
     # the spectra are written); the cross rows as K2 takes them on the
     # other routes; one spectra buffer for the GCC's spectra routes and
@@ -1479,8 +1536,7 @@ def scene_windowed(base: torch.Tensor, tau: torch.Tensor,
     strips, spec = (0, 0, 0), None
     if spectra:
         cpl0, cpl1 = zm0, None
-        strips = (route.cols, fft_real_rows_strip(nfft // route.n1, packed),
-                  route.rows)
+        strips = _spectra_strips(nfft, packed)
     else:
         cpl0, cpl1, _cpl = _buffers(
             0 if route.kind == ROUTE_SPECTRA_BLOCK else _copies(route.n1),

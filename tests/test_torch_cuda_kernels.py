@@ -335,12 +335,13 @@ def test_whiten_kernel_takes_misaligned_views(cuda, bins):
 def test_whitened_corr_kernel_matches_plain(cuda, rows, length, nfft,
                                             schedule):
     """K9 on each of its schedules (``corr_schedule``): one block a packed
-    row, the two launches of the split (up to 2048 x 2048, strips of 8 at
-    2,048) and the passes above 2^22; odd and even row counts."""
+    row, the two launches of the split (up to 4096 x 4096, strips of 8 at
+    2,048 and 4 at 4,096) and the passes above 2^24; odd and even row
+    counts."""
     assert cf.corr_schedule(nfft) == schedule
     g = _gen(cuda)
     x = torch.randn((2 * rows, length), generator=g, device=cuda)
-    spec = cf.fft_real(x, nfft) if nfft <= cf.FFT_REAL_MAX else \
+    spec = cf.fft_real(x, nfft) if nfft <= cf.FFT_SPLIT_MAX else \
         cf.fft_real_plain(x, nfft)
     a, b = spec[:rows].contiguous(), spec[rows:].contiguous()
     for band in ((300.0, 3400.0), None):

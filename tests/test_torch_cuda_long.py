@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch twins on the card above
-2^20 points: K4a's, K4b's and K6's split to 2^24 and their radix-2 passes
-above, K9's, K1's, K2's, K3's and K5's shapes from 2^21 to 2^22, and
-the device kernels a call runs there.
+2^20 points: the split of every transforming kernel to 2^24 and the
+radix-2 passes above (K4a's, K4b's, K6's and K9's at 2^25), K9's, K1's,
+K2's, K3's and K5's shapes from 2^21 to 2^24 through the spectra, and the
+device kernels a call runs there.
 
 A file of its own, run in its own process: in one process after these
 cases, late profiler traces in ``test_torch_cuda_kernels.py`` lost each
@@ -21,7 +22,7 @@ from pyaudiolocalization_tpu_torch.models import tdoa
 from pyaudiolocalization_tpu_torch.ops import cuda_fft as cf
 from pyaudiolocalization_tpu_torch.ops import noise as noise_ops
 from test_torch_cuda_kernels import (  # noqa: F401 (cuda: the fixture)
-    _device_kernels, _gen, _pairs, cuda)
+    _device_kernels, _gen, _pairs, _scene_inputs, cuda)
 from test_torch_cuda_kernels import \
     test_bootstrap_peaks_kernel_matches_plain as _bootstrap_peaks
 from test_torch_cuda_kernels import \
@@ -172,31 +173,37 @@ def test_bootstrap_chunks_by_bytes_keep_one_launch_bits(cuda, monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,length,nfft,schedule", [
     (1, 600000, 1 << 21, 2048), (1, 2000000, 1 << 22, 2048),
-    (1, 600000, 1 << 23, 0)])
+    (1, 600000, 1 << 23, 2048), (1, 8400000, 1 << 24, 4096),
+    (1, 600000, 1 << 25, 0)])
 def test_whitened_corr_kernel_matches_plain(cuda, rows, length, nfft,
                                             schedule):
-    """K9 on the split at 2^21 and 2^22 (strips of 8 at 2,048) and on the
-    passes above 2^22."""
+    """K9 on the split at 2^21 and 2^22 (strips of 8 at 2,048), at 2^23
+    (2,048 x 4,096: 8 columns, 4 rows) and 2^24 (4,096 x 4,096: 4 and 4),
+    and on the passes above 2^24."""
     _whitened_corr(cuda, rows, length, nfft, schedule)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,m,length,nfft,schedule", [
     (None, 4, 1046019, 1 << 21, 2048), (2, 3, 600000, 1 << 21, 2048),
-    (None, 4, 2000000, 1 << 22, 2048)])
+    (None, 4, 2000000, 1 << 22, 2048), (None, 4, 4200000, 1 << 23, 2048),
+    (None, 8, 4200000, 1 << 23, 2048), (None, 4, 8400000, 1 << 24, 4096)])
 def test_gcc_all_pairs_schedules_match_plain(cuda, b, m, length, nfft,
                                              schedule):
     """K1 through the mic rows' spectra at 2^21 (a 23.7 s recording's 4
-    mics, 2 scenes of 3 mics) and 2^22."""
+    mics, 2 scenes of 3 mics), 2^22, 2^23 (a 95 s recording's 4 and 8
+    mics under ``max_expected_delay=None``) and 2^24 (190 s)."""
     _gcc_schedules(cuda, b, m, length, nfft, schedule)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,m,length,nfft", [(1, 4, 1500000, 1 << 21),
-                                             (1, 4, 3000000, 1 << 22)])
+                                             (1, 4, 3000000, 1 << 22),
+                                             (1, 4, 6000000, 1 << 23),
+                                             (1, 4, 12000000, 1 << 24)])
 def test_gcc_spectra_routes_match_plain(cuda, b, m, length, nfft):
-    """K1 and K2 through the mic rows' spectra at the fast path's 2^21 and
-    2^22 recording lengths."""
+    """K1 and K2 through the mic rows' spectra at the fast path's 2^21 to
+    2^24 recording lengths (34 s to 272 s at 44.1 kHz)."""
     _gcc_spectra(cuda, b, m, length, nfft)
 
 
@@ -204,12 +211,17 @@ def test_gcc_spectra_routes_match_plain(cuda, b, m, length, nfft):
 @pytest.mark.parametrize("scenes,m,paths,total,out,nfft,wq", [
     (1, 4, 1, 1600000, 1500000, 1 << 21, 21),
     (1, 4, 1, 3100000, 3000000, 1 << 22, 21),
-    (2, 3, 3, 1600000, 1500000, 1 << 21, 21)])
+    (2, 3, 3, 1600000, 1500000, 1 << 21, 21),
+    (1, 4, 1, 6200000, 6000000, 1 << 23, 21),
+    (1, 4, 1, 12400000, 12000000, 1 << 24, 21),
+    (2, 3, 3, 6200000, 6000000, 1 << 23, 21),
+    (2, 3, 3, 12400000, 12000000, 1 << 24, 21)])
 def test_render_spectra_route_matches_plain(cuda, scenes, m, paths, total,
                                             out, nfft, wq):
-    """K3 through the base rows' spectra at the fast path's 2^21 and 2^22
+    """K3 through the base rows' spectra at the fast path's 2^21 to 2^24
     (the finish spread over the card) and 2 scenes of 3 mics and 3 paths
-    at 2^21 (mic rows packed across scenes, an odd pair count)."""
+    at 2^21, 2^23 and 2^24 (mic rows packed across scenes, an odd pair
+    count); K2 on its signals and K5, equal to K3 then K2 to the bit."""
     _render_spectra(cuda, scenes, m, paths, total, out, nfft, wq)
 
 
@@ -218,10 +230,14 @@ def test_device_kernels_per_call_above_2_20(cuda, tmp_path):
     """The design, not just the answer, above 2^20: K4a runs its two
     kernels (two rows of a 23.7 s pair at 2^21, three at 2^22 and 2^23,
     one at 2^24: strips of 8 columns, 4 at 2^24) and K4b and K6 their
-    three, not the radix-2 passes; K1 four at 2^21 and 2^22 (K4a's two
+    three, not the radix-2 passes; K1 four from 2^21 to 2^24 (K4a's two
     passes, K9's row pass, the column pass), K9 two there; K1 and K2 four
-    at 2^21 through the mic rows' spectra (``window_cols`` last for K2),
-    no radix-2 pass."""
+    at 2^21, 2^23 and 2^24 through the mic rows' spectra (``window_cols``
+    last for K2); K3 eight with the finalize and the noise at 2^22, 2^23
+    and 2^24 (K4a's two passes into the base rows' spectra,
+    ``render_spec_rows``, ``render_cols``, four steps of
+    ``finish_spread``) and K5 twelve (K3's, then K2's four); no radix-2
+    pass anywhere."""
     seeds = torch.randint(-2 ** 31, 2 ** 31, (3, 2), generator=_gen(cuda),
                           dtype=torch.int32, device=cuda)
     for rows, length, nfft in ((2, 1_046_019, 1 << 21),
@@ -248,7 +264,8 @@ def test_device_kernels_per_call_above_2_20(cuda, tmp_path):
         del xl
     g = _gen(cuda, 8)
     pi, pj = _pairs(4)
-    for length, nfft in ((1046019, 1 << 21), (2000000, 1 << 22)):
+    for length, nfft in ((1046019, 1 << 21), (2000000, 1 << 22),
+                         (4200000, 1 << 23), (8400000, 1 << 24)):
         sig = torch.randn((4, length), generator=g, device=cuda)
         mask = cf.band_mask(nfft, None, None, device=cuda)
         names = _device_kernels(
@@ -265,19 +282,45 @@ def test_device_kernels_per_call_above_2_20(cuda, tmp_path):
         assert len(names) == 2, names
         assert "corr_rows" in names[0] and "corr_cols" in names[1], names
     g = _gen(cuda, 21)
-    sig = torch.randn((1, 4, 1500000), generator=g, device=cuda)
-    nfft = 1 << 21
-    mask = cf.band_mask(nfft, (300.0, 3400.0), 44100.0, device=cuda)
-    k1 = _device_kernels(lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
-                         tmp_path / "k1_spectra.json")
-    k2 = _device_kernels(lambda: cf.gcc_windowed(sig, pi, pj, nfft, 21,
-                                                 mask),
-                         tmp_path / "k2_spectra.json")
-    want = ("fft_real_cols", "fft_real_rows", "corr_rows")
-    assert len(k1) == len(k2) == 4, (k1, k2)
-    assert all(w in a and w in b for w, a, b in zip(want, k1, k2))
-    assert "corr_cols" in k1[3] and "window_cols" in k2[3], (k1, k2)
-    for name in k1 + k2:
-        assert not any(p in name for p in (
-            "stockham_pass", "pack_rows", "gcc_cross", "last_pass_window",
-            "split_pairs")), name
+    passes = ("stockham_pass", "pack_rows", "gcc_cross", "last_pass_window",
+              "split_pairs", "render_mix", "render_finalize")
+    for length, nfft in ((1500000, 1 << 21), (6000000, 1 << 23),
+                         (12000000, 1 << 24)):
+        sig = torch.randn((1, 4, length), generator=g, device=cuda)
+        mask = cf.band_mask(nfft, (300.0, 3400.0), 44100.0, device=cuda)
+        k1 = _device_kernels(lambda: cf.gcc_all_pairs(sig, pi, pj, nfft,
+                                                      mask),
+                             tmp_path / "k1_spectra.json")
+        k2 = _device_kernels(lambda: cf.gcc_windowed(sig, pi, pj, nfft, 21,
+                                                     mask),
+                             tmp_path / "k2_spectra.json")
+        want = ("fft_real_cols", "fft_real_rows", "corr_rows")
+        assert len(k1) == len(k2) == 4, (nfft, k1, k2)
+        assert all(w in a and w in b for w, a, b in zip(want, k1, k2))
+        assert "corr_cols" in k1[3] and "window_cols" in k2[3], (k1, k2)
+        for name in k1 + k2:
+            assert not any(p in name for p in passes), name
+        del sig
+    render = ["fft_real_cols", "fft_real_rows", "render_spec_rows",
+              "render_cols"] + ["finish_spread"] * 4
+    gcc = ["fft_real_cols", "fft_real_rows", "corr_rows", "window_cols"]
+    for total, out, nfft in ((3100000, 3000000, 1 << 22),
+                             (6200000, 6000000, 1 << 23),
+                             (12400000, 12000000, 1 << 24)):
+        base, tau, gains, snr, seeds3, fade = _scene_inputs(
+            cuda, 1, 4, 1, total, out, 21)
+        mask = cf.band_mask(nfft, (300.0, 3400.0), 44100.0, device=cuda)
+        k3 = _device_kernels(
+            lambda: cf.delay_sum(base, tau, gains, nfft, out, fade, True,
+                                 snr, seeds3), tmp_path / "k3_long.json")
+        k5 = _device_kernels(
+            lambda: cf.scene_windowed(base, tau, gains, pi, pj, nfft, out,
+                                      21, fade, mask, snr, seeds3),
+            tmp_path / "k5_long.json")
+        assert len(k3) == len(render), (nfft, k3)
+        assert all(w in n for w, n in zip(render, k3)), k3
+        assert len(k5) == len(render + gcc), (nfft, k5)
+        assert all(w in n for w, n in zip(render + gcc, k5)), k5
+        for name in k3 + k5:
+            assert not any(p in name for p in passes), name
+        del base

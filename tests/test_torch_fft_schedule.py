@@ -35,14 +35,16 @@ indices so that a wrong map shows before the card sees it:
 - K1 and K9 (``palt_gcc_all_pairs``, ``palt_whitened_corr``): K1's split
   (K2's passes 1 and 2, then ``corr_cols``' inverse column DFTs written
   to pairs 2c and 2c + 1 in natural order), K9's row pass gathering
-  natural-order bins by the mirror-pair tasks (to 2^22: 16 rows a strip,
-  8 at n2 = 2,048, and 8 columns at n1 = 2,048), K1 above 2^20 (K4a's
+  natural-order bins by the mirror-pair tasks (16 rows a strip, 8 at n2
+  = 2,048, and 8 columns at n1 = 2,048; the strips of 4 of 2^23 and 2^24
+  at 65,536, as the render's and the window's), K1 above 2^20 (K4a's
   passes into the mic rows' spectra, K9's row pass with the pair-indexed
   loader, ``corr_cols``), held also against the JAX package at 2^21, K2's
   GCC on that route (``window_cols`` over the route's column strips) and
   through the spectra in one block (``fft_real_block``, then
-  ``corr_block`` a packed cross row with ``CorrOut`` or ``WindowOut``), the
-  one-block versions
+  ``corr_block`` a packed cross row with ``CorrOut`` or ``WindowOut``),
+  ``spectra_plan``'s launches at every length of the split, the one-block
+  versions
   (``gcc_block`` with a scene's rows packed across scenes and couples
   shared over groups, ``corr_block``) against ``gcc_all_pairs_plain`` and
   ``whitened_corr_plain``, and the rules that pick each schedule
@@ -225,7 +227,7 @@ def fft_real_model(x, n):
         writes += 1
         return out[:rows], writes[:rows]
     assert n1 * n2 == n and n1 <= 4096 and n1 % 32 == 0
-    assert n1 >= n2 or n > cf.FFT_REAL_MAX    # the long side in the rows
+    assert n1 >= n2 or n > cf.SPLIT_COLS_LONG_MAX   # long side in the rows
     plan = cf.split_plan(n, packed)
     y = _cols_pass(z, n1, n2, plan.cols.strip)
     # Pass 2 (fft_real_rows): block b holds rows pair_row(b, r), r < S2,
@@ -421,13 +423,13 @@ def test_fft_real_schedule_wide_strips(n, strip, monkeypatch):
 def test_fft_real_schedule_above_2_22(bits, rows):
     """2^23 (2,048 x 4,096: the long side in the rows, pass 1's strips of 8
     columns, pass 2's of 4 rows) and 2^24 (4,096 x 4,096: 4 columns, 4
-    rows), K4a's split past K9's and the GCCs' (``FFT_REAL_MAX``), against
+    rows), the split past its square shapes (``SPLIT_COLS_LONG_MAX``), against
     np.fft.rfft, one and two rows (one packed row): each bin written
     exactly once, DC and Nyquist exactly real."""
     n = 1 << bits
     n1, n2 = cf.fft_real_split(n)
     assert (n1, n2) == ((2048, 4096) if bits == 23 else (4096, 4096))
-    assert cf._split_n1(n) == n1 and cf.corr_schedule(n) == 0
+    assert cf._split_n1(n) == n1 and cf.corr_schedule(n) == n1
     assert cf.split_strips(n1, n2) == ((8, 4) if bits == 23 else (4, 4))
     assert cf.fft_real_rows_strip(n2, 1) == 4
     x = _rows(np.random.default_rng(bits + 10 * rows), rows,
@@ -496,9 +498,9 @@ def test_bootstrap_schedule_matches_irfft(bits):
 
 
 def test_bootstrap_schedule_largest_split():
-    """2^22, the largest split (2,048 x 2,048: strips of 8 columns and of 8
-    rows), at one row."""
-    n = cf.FFT_REAL_MAX
+    """2^22, the largest square split (2,048 x 2,048: strips of 8 columns
+    and of 8 rows), at one row."""
+    n = cf.SPLIT_COLS_LONG_MAX
     assert cf.split_strips(*cf.fft_real_split(n)) == (8, 8)
     _check_boot(*_boot_case(np.random.default_rng(22), 1, n), n)
 
@@ -546,8 +548,8 @@ def test_fft_real_split_choice(n):
         assert n2 <= n1 <= 2 * n2 and n1 % 32 == 0 and n2 % S == 0
         assert cf.fft_real_rows_strip(n2, 63) == 16
         assert n1 % cf.fft_real_rows_strip(n2, 64) == 0
-    assert cf.fft_real_split(cf.FFT_REAL_MAX) == (2048, 2048)
-    assert cf.fft_real_split(2 * cf.FFT_REAL_MAX) == (2048, 4096)
+    assert cf.fft_real_split(cf.SPLIT_COLS_LONG_MAX) == (2048, 2048)
+    assert cf.fft_real_split(2 * cf.SPLIT_COLS_LONG_MAX) == (2048, 4096)
     assert cf.fft_real_split(cf.FFT_SPLIT_MAX) == (4096, 4096)
 
 
@@ -563,9 +565,9 @@ def test_split_strips_rule(n, strips, rows_strip):
     4,096.  Each strip holds at most ``BLOCK_POINTS`` points and its pass
     fits one block's shared memory (the kernels' byte counts); the next
     wider strip does not fit where a narrower one is taken;
-    ``split_plan`` gives the same strips.  The split reaches 2^24 for
-    these three kernels, 2^22 for K9 and K1 (K9's schedule is theirs up to
-    there), and 2^20 for the others (``STAGE_SPLIT_MAX``)."""
+    ``split_plan`` and ``spectra_plan`` give the same strips.  The split
+    reaches 2^24 for every transforming kernel (K9's schedule is K4a's),
+    its row passes of more than one strip 2^20 (``STAGE_SPLIT_MAX``)."""
     n1, n2 = cf.fft_real_split(n)
     assert cf.split_strips(n1, n2) == strips
     assert cf.fft_real_rows_strip(n2, 1) == rows_strip
@@ -584,10 +586,12 @@ def test_split_strips_rule(n, strips, rows_strip):
         assert n2 * 2 * rs > cf.BLOCK_POINTS
     assert cf._split_n1(n) == n1
     assert cf._split_strips(n1, n) == strips
-    assert cf.corr_schedule(n) == (n1 if n <= cf.FFT_REAL_MAX else 0)
+    assert cf.corr_schedule(n) == n1
+    spectra = cf.spectra_plan(n)
+    assert (spectra.spec_cols.strip, spectra.spec_rows.strip) == strips
     assert cf._split_n1(2 * cf.FFT_SPLIT_MAX) == 0
     assert cf._split_strips(0, 2 * cf.FFT_SPLIT_MAX) == (0, 0)
-    assert cf.STAGE_SPLIT_MAX == 1 << 20 and cf.FFT_REAL_MAX == 1 << 22
+    assert cf.STAGE_SPLIT_MAX == 1 << 20 and cf.SPLIT_COLS_LONG_MAX == 1 << 22
     assert cf.FFT_SPLIT_MAX == 1 << 24
 
 
@@ -929,7 +933,7 @@ def test_render_split_matches_delay_sum(mics, paths, n, strip):
     assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
 
 
-def render_spectra_model(base, tau, gain, n):
+def render_spectra_model(base, tau, gain, n, strips=None):
     """K3's render stage through the base rows' spectra (``render_route``'s
     spectra route, 2^20 to 2^22): base (scenes, len), tau / gain (scenes,
     mics, paths) -> (scenes, mics, n), the packed inverse of the mixes
@@ -941,16 +945,20 @@ def render_spectra_model(base, tau, gain, n):
     mixes them (``mic_response``), stores the Hermitian pair, runs the
     inverse row DFTs and the conjugate twiddle (strips of the route's
     rows); ``render_cols`` over the route's column strips (8 at n1 =
-    2,048).  Asserts that each strip reads only bins q <= n/2, each once a
-    row."""
+    2,048, 4 at 4,096).  ``strips`` (columns, rows) in place of the
+    route's runs the same maps at a length the route does not take
+    through the spectra.  Asserts that each strip reads only bins q <=
+    n/2, each once a row."""
     scenes = base.shape[0]
     mics, paths = tau.shape[1:]
-    route = cf.render_route(n)
-    assert route.kind == cf.ROUTE_SPECTRA
-    n1, n2 = route.n1, n // route.n1
+    if strips is None:
+        route = cf.render_route(n)
+        assert route.kind == cf.ROUTE_SPECTRA
+        strips = route.cols, route.rows
+    n1, n2 = cf.fft_real_split(n)
     spec, writes = fft_real_model(base, n)
     assert np.array_equal(writes, np.ones_like(writes))
-    strip = route.rows
+    strip = strips[1]
     nb = n1 // strip
     slot_rows = _slot_rows(n1, strip)
     tasks = _block_tasks(nb, strip, n1, n2)
@@ -972,7 +980,7 @@ def render_spectra_model(base, tau, gain, n):
         _store_pairs(work, tasks, ya, yb, n)
         z[pm] = _rows_back(work, slot_rows, n1, n2)
     assert not np.isnan(z).any()
-    cols = _cols_back(z, n1, n2, route.cols)
+    cols = _cols_back(z, n1, n2, strips[0])
     natural = cols.transpose(0, 2, 1, 3).reshape(packed, n)
     out = np.stack([natural.real, natural.imag], 1).reshape(-1, n)[:rows]
     return out.reshape(scenes, mics, n) / n
@@ -991,6 +999,23 @@ def test_render_spectra_route_matches_delay_sum(bits, scenes, mics, paths):
     rng = np.random.default_rng(bits * 100 + scenes * 10 + mics)
     base, tau, gain = _render_case(rng, scenes, mics, paths, n)
     got = render_spectra_model(base, tau, gain, n)
+    t = torch.from_numpy
+    want = cf.delay_sum_plain(t(base), t(tau), t(gain), n, n,
+                              torch.ones(n, dtype=torch.float64),
+                              False).numpy()
+    assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("scenes,mics,paths", [(1, 4, 1), (2, 3, 3)])
+def test_render_spectra_strips_of_four(scenes, mics, paths):
+    """The maps of the render's spectra route at 2^23 and 2^24, where
+    ``render_spec_rows`` holds strips of 4 rows and ``render_cols`` of 4
+    columns, at 65,536 points (256 x 256): against ``delay_sum_plain``'s
+    transform within 1e-9 of the max."""
+    n = 65536
+    rng = np.random.default_rng(scenes * 10 + mics)
+    base, tau, gain = _render_case(rng, scenes, mics, paths, n)
+    got = render_spectra_model(base, tau, gain, n, strips=(4, 4))
     t = torch.from_numpy
     want = cf.delay_sum_plain(t(base), t(tau), t(gain), n, n,
                               torch.ones(n, dtype=torch.float64),
@@ -1237,18 +1262,19 @@ def test_window_stats_keep_the_smallest_tied_index(n):
     (65536, 10, (256, 256)), (65536, 11, (256, 256)),
     (1 << 18, 4, (512, 512)), (1 << 18, 8, (512, 512)),
     (1 << 19, 4, (1024, 1024)), (1 << 20, 2, (1024, 1024)),
-    (1 << 22, 4, (2048, 2048)), (1 << 23, 4, (0, 0))])
+    (1 << 22, 4, (2048, 2048)), (1 << 23, 4, (2048, 2048)),
+    (1 << 24, 4, (4096, 4096)), (1 << 25, 4, (0, 0))])
 def test_scene_stages_rule(n, mics, want):
     """One rule for K3, K2 and K5 (``scene_stages``): up to 4,096 one block
     for the render (its twiddles, base row and work row), and for the
     GCC one block a scene where a scene's packed mic rows and a spare row
     fit, else a packed cross row through the mic rows' spectra
-    (``gcc_route``); K4a's split from 8,192 to 2^22, the render's with
+    (``gcc_route``); the split from 8,192 to 2^24, the render's with
     ``render_rows`` where its row pass's two strips fit one block's shared
     memory (to 2^19), else through the base rows' spectra, whose row pass
     holds one strip of ``split_strips`` (``render_route``), the GCC's with
     ``gcc_rows`` where its (mics + 1) // 2 + 1 strips fit, else through
-    the mic rows' spectra; the radix-2 passes above 2^22."""
+    the mic rows' spectra; the radix-2 passes above 2^24."""
     got = cf.scene_stages(n, mics)
     assert got == want
     route = cf.gcc_route(n, mics)
@@ -1271,7 +1297,7 @@ def test_scene_stages_rule(n, mics, want):
             assert cf._row_pass_smem(n1, n2, 1,
                                      render.rows) <= cf.SMEM_OPTIN
     else:
-        assert render.kind == cf.ROUTE_PASSES and n > cf.FFT_REAL_MAX
+        assert render.kind == cf.ROUTE_PASSES and n > cf.FFT_SPLIT_MAX
     if route.kind == cf.ROUTE_ROWS:
         assert cf._row_pass_smem(got[1], n // got[1],
                                  (mics + 1) // 2 + 1) <= cf.SMEM_OPTIN
@@ -1361,13 +1387,14 @@ def corr_rows_model(pairs, mask, n, strip=None):
         yield _rows_back(work, slot_rows, n1, n2)
 
 
-def corr_split_model(a, b, mask, n, strip=None):
+def corr_split_model(a, b, mask, n, strip=None, cols=None):
     """K9 on the split: ``corr_rows`` with ``RowPairLoad`` (rows 2c and 2c
-    + 1 of a and b) and ``corr_cols`` with the kernel's column strips (16,
-    8 at n1 = 2,048) -> (rows, n)."""
+    + 1 of a and b; ``strip`` rows a block) and ``corr_cols`` with
+    ``cols`` columns a strip (the kernel's by default, ``spectra_plan``:
+    16, 8 at n1 = 2,048, 4 at 4,096) -> (rows, n)."""
     rows = a.shape[0]
     n1, n2 = cf.fft_real_split(n)
-    cols = cf.split_strips(n1, n2)[0]
+    cols = cols or cf.spectra_plan(n).spec_cols.strip
     loads = ((a[2 * c], b[2 * c]) + ((a[2 * c + 1], b[2 * c + 1])
                                      if 2 * c + 1 < rows else (None, None))
              for c in range((rows + 1) // 2))
@@ -1428,14 +1455,15 @@ def gcc_spectra_model(sig, pairs_i, pairs_j, n, mask):
     return out
 
 
-def gcc_spectra_window_model(sig, pairs_i, pairs_j, n, wq, mask, seed=0):
+def gcc_spectra_window_model(sig, pairs_i, pairs_j, n, wq, mask, seed=0,
+                             cols=None):
     """K2's (and K5's) GCC stage on the spectra route: the same three
-    launches, then ``window_cols`` over strips of the route's columns (16,
-    8 at n1 = 2,048), its blocks in a shuffled order -> (win (scenes, P,
-    2w), stats (scenes, P, 3))."""
+    launches, then ``window_cols`` over strips of ``cols`` columns (the
+    route's by default: 16, 8 at n1 = 2,048, 4 at 4,096), its blocks in a
+    shuffled order -> (win (scenes, P, 2w), stats (scenes, P, 3))."""
     scenes = sig.shape[0]
     n1, n2 = cf.fft_real_split(n)
-    cols = cf.split_strips(n1, n2)[0]
+    cols = cols or cf.spectra_plan(n).spec_cols.strip
     pairs = len(pairs_i)
     couples = (pairs + 1) // 2
     w = wq * 128
@@ -1519,6 +1547,61 @@ def test_corr_split_above_2_20(bits, rows):
     assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
 
 
+@pytest.mark.parametrize("n", [8192, 65536])
+@pytest.mark.parametrize("rows", [1, 3])
+def test_corr_split_strips_of_four(rows, n):
+    """The maps of K9's split at 2^23 and 2^24, where ``corr_rows`` holds
+    strips of 4 rows (one row k1 and its partner n1 - k1 a pair of slots;
+    block 0 row 0 and row n1/2) and ``corr_cols`` strips of 4 columns, run
+    at lengths whose arrays the CPU holds at once: against
+    ``whitened_corr_plain`` within 1e-9 of the max, every sample written
+    once."""
+    rng = np.random.default_rng(rows * 11 + n)
+    a, b = _spectra(rng, rows, n), _spectra(rng, rows, n)
+    mask = cf.band_mask(n, (300.0, 3400.0), 16000.0,
+                        dtype=torch.float64).numpy()
+    got = corr_split_model(a, b, mask, n, strip=4, cols=4)
+    t = torch.from_numpy
+    want = cf.whitened_corr_plain(t(a), t(b), t(mask), n).numpy()
+    assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("bits", range(13, 25))
+def test_spectra_plan_rule(bits):
+    """``spectra_plan`` at every length of the split, 8,192 to 2^24, for
+    1, 2 and 64 packed rows: K4a's two passes as ``split_plan`` gives
+    them, the row pass (``corr_rows``, ``render_spec_rows``) one strip of
+    ``split_strips``' rows at the stride ``row_ld`` beside the n1- and
+    n2-point tables, the column pass (``corr_cols``, ``window_cols``,
+    ``render_cols``) ``split_strips``' columns beside the n1/2
+    sub-twiddles; each block at most ``BLOCK_POINTS`` points in at most
+    ``SMEM_OPTIN`` bytes (``window_cols`` with its 257 static bytes);
+    the routes of K1, K2, K3, K5 and K9 take its strips, and up to 2^20
+    the row strip keeps the stride n2 + 1."""
+    n = 1 << bits
+    n1, n2 = cf.fft_real_split(n)
+    cs, rs = cf.split_strips(n1, n2)
+    for packed in (1, 2, 64):
+        plan = cf.spectra_plan(n, packed)
+        split = cf.split_plan(n, packed)
+        assert (plan.cols, plan.rows) == (split.cols, split.rows)
+        assert plan.spec_rows == (rs, 8 * (n2 // 2 + n1 + n2
+                                           + rs * cf.row_ld(rs, n2)))
+        assert plan.spec_cols == (cs, 8 * (n1 // 2 + n1 * cs))
+        for step, length in ((plan.cols, n1), (plan.rows, n2),
+                             (plan.spec_rows, n2), (plan.spec_cols, n1)):
+            assert step.strip * length <= cf.BLOCK_POINTS
+            assert step.smem <= cf.SMEM_OPTIN
+        assert plan.spec_cols.smem + 257 <= cf.SMEM_OPTIN
+        assert cf._spectra_strips(n, packed) == (cs, plan.rows.strip, rs)
+    if n <= cf.STAGE_SPLIT_MAX:
+        assert cf.row_ld(rs, n2) == n2 + 1
+    for route in (cf.gcc_route(n, 128), cf.render_route(n)):
+        if route.kind == cf.ROUTE_SPECTRA:
+            assert (route.n1, route.cols, route.rows) == (n1, cs, rs)
+    assert cf.corr_schedule(n) == n1
+
+
 @pytest.mark.parametrize("bits,scenes,mics", [(21, 1, 4), (21, 2, 3),
                                               (22, 1, 4)])
 def test_gcc_spectra_route_matches_gcc_all_pairs(bits, scenes, mics):
@@ -1541,16 +1624,19 @@ def test_gcc_spectra_route_matches_gcc_all_pairs(bits, scenes, mics):
     assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
 
 
-@pytest.mark.parametrize("scenes,mics,n,wq", [
-    (2, 5, 8192, 2), (1, 6, 1 << 18, 16), (1, 3, 1 << 21, 32)])
-def test_gcc_spectra_window_matches_gcc_windowed(scenes, mics, n, wq):
+@pytest.mark.parametrize("scenes,mics,n,wq,cols", [
+    (2, 5, 8192, 2, None), (1, 6, 1 << 18, 16, None),
+    (1, 3, 1 << 21, 32, None), (2, 3, 65536, 4, 4)])
+def test_gcc_spectra_window_matches_gcc_windowed(scenes, mics, n, wq, cols):
     """K2's and K5's GCC stage through the mic rows' spectra: K4a's two
     passes, the pair-indexed row pass, ``window_cols`` over the route's
     column strips (16 at 8,192 and 2^18, 8 at 2^21) with its blocks in any
     order, at 2 scenes of 5 mics (rows packed across scenes, an even pair
-    count), 6 mics at 2^18 (past ``gcc_rows``' 4) and 3 mics at 2^21 (an
-    odd pair count), against ``gcc_windowed_plain``: the window within
-    1e-9 of the max, the argmax equal, the rest within 1e-6."""
+    count), 6 mics at 2^18 (past ``gcc_rows``' 4), 3 mics at 2^21 (an odd
+    pair count) and 2 scenes of 3 mics at 65,536 with 2^24's column strips
+    of 4 (64 blocks a row of partials), against ``gcc_windowed_plain``:
+    the window within 1e-9 of the max, the argmax equal, the rest within
+    1e-6."""
     route = cf.gcc_route(n, mics)
     assert route.kind in (cf.ROUTE_SPECTRA, cf.ROUTE_ROWS)
     rng = np.random.default_rng(scenes * 1000 + mics * 10 + wq)
@@ -1558,7 +1644,8 @@ def test_gcc_spectra_window_matches_gcc_windowed(scenes, mics, n, wq):
     pi, pj = _pairs(mics)
     mask = cf.band_mask(n, (300.0, 3400.0), 16000.0,
                         dtype=torch.float64).numpy()
-    win, stats = gcc_spectra_window_model(sig, pi, pj, n, wq, mask)
+    win, stats = gcc_spectra_window_model(sig, pi, pj, n, wq, mask,
+                                          cols=cols)
     w2, s2 = cf.gcc_windowed_plain(torch.from_numpy(sig), pi, pj, n, wq,
                                    torch.from_numpy(mask))
     w2, s2 = w2.numpy(), s2.numpy()
@@ -1795,13 +1882,14 @@ def test_corr_block_matches_whitened_corr(n):
     (4096, 11, 1), (2048, 24, 1), (2048, 26, 1), (8192, 3, 128),
     (65536, 4, 256), (65536, 10, 256), (65536, 11, 256), (1 << 18, 8, 512),
     (1 << 19, 4, 1024), (1 << 20, 2, 1024), (1 << 21, 4, 2048),
-    (1 << 21, 64, 2048), (1 << 22, 4, 2048), (1 << 23, 4, 0)])
+    (1 << 21, 64, 2048), (1 << 22, 4, 2048), (1 << 23, 4, 2048),
+    (1 << 24, 4, 4096), (1 << 24, 128, 4096), (1 << 25, 4, 0)])
 def test_gcc_schedule_rule(n, mics, want):
     """K1's schedule (``gcc_route``'s n1) is K2's GCC stage's
     (``scene_stages``), one rule: one block up to 4,096 (a scene where the
     twiddles, a scene's widest span of packed rows and a spare row fit one
     block's shared memory, else a packed cross row through the spectra);
-    K4a's split from 8,192 to 2^22 (``gcc_rows`` or the spectra, which
+    the split from 8,192 to 2^24 (``gcc_rows`` or the spectra, which
     hold one strip at any mic count); the passes above."""
     route = cf.gcc_route(n, mics)
     got = route.n1
@@ -1815,17 +1903,20 @@ def test_gcc_schedule_rule(n, mics, want):
 
 @pytest.mark.parametrize("n,want", [
     (4, 1), (128, 1), (4096, 1), (8192, 128), (65536, 256), (131072, 512),
-    (1 << 20, 1024), (1 << 21, 2048), (1 << 22, 2048), (1 << 23, 0)])
+    (1 << 20, 1024), (1 << 21, 2048), (1 << 22, 2048), (1 << 23, 2048),
+    (1 << 24, 4096), (1 << 25, 0)])
 def test_corr_schedule_rule(n, want):
     """K9's schedule (``corr_schedule``): one block up to 4,096, K4a's
-    split up to 2^22 (its row pass's one strip of ``split_strips`` fits at
-    every split: 16 rows, 8 at 2,048 x 2,048), the passes above, where
-    K4a's split goes on to 2^24."""
-    assert cf.corr_schedule(n) == want == (
-        cf._split_n1(n) if n <= cf.FFT_REAL_MAX else 0)
+    split up to 2^24 (its row pass's one strip of ``spectra_plan`` fits at
+    every split: 16 rows, 8 at n2 = 2,048, 4 at 4,096), the passes
+    above."""
+    assert cf.corr_schedule(n) == want == cf._split_n1(n)
     if 1 < want:
-        rows = cf.split_strips(want, n // want)[1]
+        plan = cf.spectra_plan(n)
+        rows = plan.spec_rows.strip
+        assert rows == cf.split_strips(want, n // want)[1]
         assert cf._row_pass_smem(want, n // want, 1, rows) <= cf.SMEM_OPTIN
+        assert plan.spec_rows.smem <= cf.SMEM_OPTIN
 
 
 # ---------------------------------------------------------------------------

@@ -4,13 +4,13 @@ returns False), the kernel library is a stub, and every launch through
 ``cuda_fft._launch`` is recorded with its arguments instead of run.  The
 outputs are left as allocated, so these tests read the launches only.
 
-They hold K4a's, K4b's and K6's split up to 2^24 (strips of 8 at 2,048,
-of 4 at 4,096) and their radix-2 passes above, K9's split up to 2^22 and
-its passes above, the byte cap on the split's scratch (``_launch_rows``),
-the GCC routes of K1, K2 and K5
-(``gcc_route``: one block a scene, ``gcc_rows``, the mic rows' spectra on
-the split and in one block) on both sides of every fit limit and the
-passes above 2^22 alone, K3's passes from 2^20, the row chunks of K4a,
+They hold the split of all eight transforming kernels up to 2^24 (strips
+of 8 at 2,048, of 4 at 4,096) and their radix-2 passes above, the byte
+cap on the split's scratch (``_launch_rows``), the GCC routes of K1, K2
+and K5 (``gcc_route``: one block a scene, ``gcc_rows``, the mic rows'
+spectra on the split and in one block) on both sides of every fit limit
+and the passes above 2^24 alone, K3's render through the base rows'
+spectra from 2^20 to 2^24, the row chunks of K4a,
 K4b, K6 and K9, the scene chunks of K2, K3 and K5 at the sweep's 65,535
 grid limit, their one-block schedules up to 4,096 points and their
 scratch, the exact-length parity path (K7 only), the api from recorded files
@@ -219,21 +219,25 @@ N1_ARGS = {"gcc_all_pairs": slice(4, 6), "gcc_windowed": slice(4, 6),
     for n, n1 in ((1 << 20, 1024), (1 << 21, 2048), (1 << 22, 2048))] + [
     ("delay_sum", n, n1) for n, n1 in ((1 << 20, 1024), (1 << 21, 2048),
                                        (1 << 22, 2048))] + [
-    ("gcc_all_pairs", 1 << 23, 0), ("gcc_windowed", 1 << 23, 0),
-    ("scene_windowed", 1 << 23, 0),
+    ("gcc_all_pairs", 1 << 23, 2048), ("gcc_windowed", 1 << 23, 2048),
+    ("scene_windowed", 1 << 23, 2048),
     ("whitened_corr", 1 << 20, 1024), ("whitened_corr", 1 << 21, 2048),
-    ("whitened_corr", 1 << 22, 2048), ("whitened_corr", 1 << 23, 0)] + [
-    (k, 1 << 24, 0) for k in ("gcc_all_pairs", "gcc_windowed",
+    ("whitened_corr", 1 << 22, 2048), ("whitened_corr", 1 << 23, 2048)] + [
+    (k, 1 << 24, 4096) for k in ("gcc_all_pairs", "gcc_windowed",
+                                 "scene_windowed", "delay_sum",
+                                 "whitened_corr")] + [
+    ("delay_sum", 1 << 23, 2048)] + [
+    (k, 1 << 25, 0) for k in ("gcc_all_pairs", "gcc_windowed",
                               "scene_windowed", "delay_sum",
-                              "whitened_corr")] + [("delay_sum", 1 << 23, 0)])
+                              "whitened_corr")])
 def test_other_kernels_keep_their_routes_above_2_20(launches, kernel, nfft,
                                                     n1):
     """K9's split, the GCCs' of K1, K2 and K5 (4 mics a scene) and the
-    renders of K3 and K5 reach 2^22: n1 = 1,024 at 2^20 and 2,048 at 2^21
-    and 2^22, the GCCs through their mic rows' spectra and the renders
-    through their base rows' spectra (``render_route``), the radix-2
-    passes (n1 = 0) at 2^23 and 2^24, where K4a's, K4b's and K6's split
-    goes on (``FFT_SPLIT_MAX``) and these keep their pass launches."""
+    renders of K3 and K5 reach 2^24, as K4a's, K4b's and K6's
+    (``FFT_SPLIT_MAX``): n1 = 1,024 at 2^20, 2,048 from 2^21 to 2^23 and
+    4,096 at 2^24, the GCCs through their mic rows' spectra and the
+    renders through their base rows' spectra (``render_route``); the
+    radix-2 passes (n1 = 0) at 2^25."""
     _route(kernel, nfft)
     (args,) = _named(launches, kernel)
     if kernel == "scene_windowed":
@@ -243,11 +247,11 @@ def test_other_kernels_keep_their_routes_above_2_20(launches, kernel, nfft,
     assert cf.scene_stages(nfft, 4) == (n1, cf.gcc_route(nfft, 4).n1)
     if kernel in ("delay_sum", "scene_windowed"):
         kind = args[19] if kernel == "delay_sum" else args[35]
-        assert kind == (cf.ROUTE_PASSES if nfft > cf.FFT_REAL_MAX
+        assert kind == (cf.ROUTE_PASSES if nfft > cf.FFT_SPLIT_MAX
                         else cf.ROUTE_SPECTRA)
     if kernel in ("gcc_all_pairs", "gcc_windowed", "scene_windowed"):
         kind = args[10 if kernel == "scene_windowed" else 6]
-        assert kind == (cf.ROUTE_PASSES if nfft > cf.FFT_REAL_MAX
+        assert kind == (cf.ROUTE_PASSES if nfft > cf.FFT_SPLIT_MAX
                         else cf.ROUTE_SPECTRA)
 
 
@@ -262,20 +266,22 @@ RENDER_ARGS = {"delay_sum": (slice(19, 23), slice(15, 19), 23, slice(24, 26)),
 
 @pytest.mark.parametrize("nfft,n1,strips", [
     (1 << 20, 1024, (16, 16, 16)), (1 << 21, 2048, (8, 16, 16)),
-    (1 << 22, 2048, (8, 8, 8)), (1 << 23, 0, (0, 0, 0))])
+    (1 << 22, 2048, (8, 8, 8)), (1 << 23, 2048, (8, 4, 4)),
+    (1 << 24, 4096, (4, 4, 4)), (1 << 25, 0, (0, 0, 0))])
 def test_renders_from_2_20_take_the_base_rows_spectra(launches, nfft, n1,
                                                       strips):
-    """K3 and K5 on one scene of 4 mics: from 2^20 to 2^22 the render
+    """K3 and K5 on one scene of 4 mics: from 2^20 to 2^24 the render
     through the base rows' spectra (``render_route``), n1 1,024 / 2,048 /
-    2,048 with K4a's strips (8 columns from n1 = 2,048, K4a's pass-2 strip
-    of one packed base row, 8 rows at n2 = 2,048), K4a's packed base rows
-    in the packed mic rows' buffer, no ping-pong copy, the spectra, and the
+    2,048 / 2,048 / 4,096 with ``spectra_plan``'s strips (8 columns from
+    n1 = 2,048 and 4 at 4,096, K4a's pass-2 strip of one packed base row,
+    8 rows at n2 = 2,048 and 4 at 4,096), K4a's packed base rows in the
+    packed mic rows' buffer, no ping-pong copy, the spectra, and the
     finish spread over 128 blocks a packed mic row with its partials
-    (``finish_groups``); at 2^23 the radix-2 passes, two copies of each
+    (``finish_groups``); at 2^25 the radix-2 passes, two copies of each
     buffer, one block a mic row."""
     _route("delay_sum", nfft)
     _route("scene_windowed", nfft)
-    spectra = nfft <= cf.FFT_REAL_MAX
+    spectra = nfft <= cf.FFT_SPLIT_MAX
     kind = cf.ROUTE_SPECTRA if spectra else cf.ROUTE_PASSES
     for name in RENDER_ARGS:
         (args,) = _named(launches, name)
@@ -323,12 +329,13 @@ def test_renders_up_to_2_19_keep_their_launches(launches, nfft, kind, n1):
 @pytest.mark.parametrize("nfft,rows,want", [
     (1 << 19, 4, 1), (1 << 20, 4, 128), (1 << 20, 2, 128), (1 << 21, 6, 88),
     (1 << 22, 12, 44), (1 << 20, 131, 4), (1 << 20, 132, 1),
-    (1 << 20, 256, 1), (1 << 23, 4, 1)])
+    (1 << 20, 256, 1), (1 << 23, 4, 128), (1 << 24, 6, 88),
+    (1 << 24, 132, 1), (1 << 25, 4, 1)])
 def test_finish_groups_rule(nfft, rows, want):
     """The finish's blocks a packed mic row (``finish_groups``): one block a
-    mic row up to 2^19, above 2^22 and wherever a launch's rows fill the
-    card's 132 SMs; else enough for 264 blocks, at most 128 a packed
-    row."""
+    mic row up to 2^19, above 2^24 and wherever a launch's rows fill the
+    card's 132 SMs; else (the render's spectra route, 2^20 to 2^24) enough
+    for 264 blocks, at most 128 a packed row."""
     assert cf.finish_groups(nfft, rows) == want
 
 
@@ -351,13 +358,16 @@ def test_spread_finish_partials_cover_each_scene_chunk(launches):
 
 
 @pytest.mark.parametrize("nfft,strips", [(1 << 21, (8, 16, 16)),
-                                         (1 << 22, (8, 8, 8))])
+                                         (1 << 22, (8, 8, 8)),
+                                         (1 << 23, (8, 4, 4)),
+                                         (1 << 24, (4, 4, 4))])
 def test_k1_and_k9_above_2_20_take_k4a_strips(launches, nfft, strips):
-    """Above 2^20 K1 launches with K4a's strips — 8 columns, K4a's pass-2
-    strip (``fft_real_rows_strip``) and the row pass's (16 rows at 2^21, 8
-    at 2^22) — K4a's packed rows and the cross rows in one buffer, and the
-    spectra in a second; K9 with the same column and row strips; on
-    ``gcc_rows`` (65,536 at 4 mics) K1's split passes no strip."""
+    """Above 2^20 K1 launches with ``spectra_plan``'s strips — 8 columns
+    (4 at 2^24), K4a's pass-2 strip (``fft_real_rows_strip``) and the row
+    pass's (16 rows at 2^21, 8 at 2^22, 4 at 2^23 and 2^24) — K4a's packed
+    rows and the cross rows in one buffer, and the spectra in a second; K9
+    with the same column and row strips; on ``gcc_rows`` (65,536 at 4
+    mics) K1's split passes no strip."""
     _route("gcc_all_pairs", nfft)
     _route("whitened_corr", nfft)
     (k1,) = _named(launches, "gcc_all_pairs")
@@ -394,7 +404,8 @@ FIT_LIMITS = ((1024, 52), (2048, 24), (4096, 10), (8192, 52), (16384, 24),
               (1 << 19, 4), (1 << 20, 1), (1 << 21, 1), (1 << 22, 1))
 ROUTE_CASES = [(n, m, old) for n, limit in FIT_LIMITS
                for m, old in ((limit, True), (limit + 1, False))
-               if m >= 2] + [(1 << 23, 4, False)]
+               if m >= 2] + [(1 << 23, 4, False), (1 << 24, 4, False),
+                             (1 << 25, 4, False)]
 
 
 def _gcc_call(kernel, nfft, mics):
@@ -419,11 +430,11 @@ def test_gcc_routes_by_shape(launches, kernel, nfft, mics, fits):
     """K1, K2 and K5's GCC stage on both sides of every fit limit: where
     one block a scene or ``gcc_rows`` fits they launch as before the
     spectra routes (n1 1 or the split's, no strip, the same buffers);
-    beyond it, up to 2^22, through the mic rows' spectra — in one block up
+    beyond it, up to 2^24, through the mic rows' spectra — in one block up
     to 4,096 (n1 = 1, the spectra and nothing else), on the split above
     (K4a's strips, K4a's packed buffer shared with the cross rows, the
     spectra, K2's and K5's partials) — never on the radix-2 passes, which
-    start at 2^23.  K5's route is K2's at every shape."""
+    start at 2^25.  K5's route is K2's at every shape."""
     _gcc_call(kernel, nfft, mics)
     (args,) = _named(launches, kernel)
     sched, bufs, parts = GCC_ARGS[kernel]
@@ -434,7 +445,7 @@ def test_gcc_routes_by_shape(launches, kernel, nfft, mics, fits):
     if fits:
         want = cf.ROUTE_BLOCK if nfft <= 4096 else cf.ROUTE_ROWS
         assert (n1, kind) == (1 if nfft <= 4096 else split, want)
-    elif nfft > cf.FFT_REAL_MAX:
+    elif nfft > cf.FFT_SPLIT_MAX:
         assert (n1, kind) == (0, cf.ROUTE_PASSES)
     elif nfft <= 4096:
         assert (n1, kind) == (1, cf.ROUTE_SPECTRA_BLOCK)
@@ -474,15 +485,20 @@ def test_gcc_routes_by_shape(launches, kernel, nfft, mics, fits):
 
 
 def test_no_gcc_route_runs_the_passes_up_to_2_22():
-    """For 2 to 128 mics at every power of two from 4 to 2^22 the GCC of
-    K1, K2 and K5 takes one block, ``gcc_rows`` or the mic rows' spectra,
-    never the radix-2 passes; at 2^23 every mic count takes the passes.
-    ``scene_stages`` reads the route's n1."""
-    for bits in range(2, 24):
+    """For 2 to 128 mics at every power of two from 4 to 2^24 (2^22 before
+    the spectra routes reached 2^24) the GCC of K1, K2 and K5 takes one
+    block, ``gcc_rows`` or the mic rows' spectra, never the radix-2
+    passes, and neither do the render of K3 and K5 (``render_route``) nor
+    K9 (``corr_schedule``); at 2^25 all three take the passes, at every
+    mic count.  ``scene_stages`` reads the route's n1."""
+    for bits in range(2, 26):
         nfft = 1 << bits
+        assert (cf.render_route(nfft).kind == cf.ROUTE_PASSES) == (
+            bits == 25)
+        assert (cf.corr_schedule(nfft) == 0) == (bits == 25)
         for mics in range(2, 129):
             route = cf.gcc_route(nfft, mics)
-            assert (route.kind == cf.ROUTE_PASSES) == (bits == 23)
+            assert (route.kind == cf.ROUTE_PASSES) == (bits == 25)
             assert cf.scene_stages(nfft, mics)[1] == route.n1
             if route.kind == cf.ROUTE_SPECTRA:
                 assert route.n1 == cf.fft_real_split(nfft)[0]
@@ -514,10 +530,11 @@ def test_shapes_that_fit_keep_their_launches(launches, nfft, mics, want):
 
 def test_window_partials_follow_the_column_strip():
     """``window_cols``' partials: a block sum per column strip, 16
-    columns on ``gcc_rows`` and up to 2^20, 8 at 2^21 and 2^22; none in
-    one block."""
+    columns on ``gcc_rows`` and up to 2^20, 8 from 2^21 to 2^23, 4 at
+    2^24 (1,024 blocks a row); none in one block."""
     for nfft, mics, blocks in ((65536, 4, 16), (1 << 20, 4, 64),
-                               (1 << 21, 4, 128), (1 << 22, 12, 256)):
+                               (1 << 21, 4, 128), (1 << 22, 12, 256),
+                               (1 << 23, 4, 512), (1 << 24, 4, 1024)):
         keys, count, part = cf._window_scratch(3, nfft,
                                                cf.gcc_route(nfft, mics),
                                                "cpu")
@@ -525,6 +542,36 @@ def test_window_partials_follow_the_column_strip():
             6, 3, 2 * 3 * blocks)
     assert cf._window_scratch(3, 4096, cf.gcc_route(4096, 12), "cpu") == (
         None, None, None)
+
+
+# Where each transforming kernel's (nfft, n1) sits in its launch's
+# arguments (K5's n1 of its render, then of its GCC).
+N1_OF = dict(N1_ARGS, fft_real=slice(3, 5), bootstrap_peaks=slice(4, 6),
+             noise_bootstrap_peaks=slice(4, 6))
+
+
+@pytest.mark.parametrize("bits,n1", [(24, 4096), (25, 0)])
+def test_all_transforming_kernels_leave_the_split_together(launches, bits,
+                                                           n1):
+    """All eight kernels that transform (K4a, K4b, K6, K9, K1, K2, K3, K5)
+    launch on the split at 2^24 (``FFT_SPLIT_MAX``, n1 = 4,096) and on the
+    radix-2 passes at 2^25 (n1 = 0): one limit for every kernel."""
+    nfft = 1 << bits
+    for kernel in ("gcc_all_pairs", "gcc_windowed", "delay_sum",
+                   "scene_windowed", "whitened_corr"):
+        _route(kernel, nfft)
+    rows = torch.zeros(2, 100)
+    s1 = torch.zeros(nfft // 2 + 1, dtype=torch.complex64)
+    cf.fft_real(rows, nfft)
+    cf.bootstrap_peaks(s1, rows, nfft)
+    cf.noise_bootstrap_peaks(s1, torch.zeros((2, 2), dtype=torch.int32),
+                             100, nfft)
+    assert len(launches) == 8
+    for name, args in launches:
+        got = args[N1_OF[name]]
+        if name == "scene_windowed":
+            got = args[7:10]
+        assert got == (nfft,) + (n1,) * (len(got) - 1), name
 
 
 # ---------------------------------------------------------------------------

@@ -50,17 +50,19 @@ of a 23.7 s pair at 2^21 and one row at 2^22, 2^23 and 2^24 against
 2^22 and three at 2^23 and 2^24, K6 also at 1,000 draws at 2^23 and 300
 at 2^24, each K4b or K6 case from ``HEAVY_POINTS`` timed one call a loop
 and logged as not fitting where the card runs out of memory; K1 at the
-23.7 s recording's 4 and 8 mics at 2^21 and 4 mics at 2^22, K9 at one
-pair of each); ``--gcc --long`` times only K1 (``ROUTE_GCC``) and K2,
-K3 and K5 (``ROUTE_SCENES``) at the shapes where the GCC goes through
-the mic rows' spectra, and K3 at the shapes of its render through the
-base rows' spectra (``--scene --long``: those of K2, K3 and K5 alone,
-then chip_smoke.py's simulated 20 s and 60 s scenes on the fast path,
-``long_scenes``, K3 at 2^20 and 2^22: their wall time cold and warm and
-their device time by kernel); ``--recording`` runs chip_smoke.py's 4 x 24 s
+23.7 s recording's 4 and 8 mics at 2^21, 4 mics at 2^22, 4 and 8 at 2^23
+and 4 at 2^24, K9 at one pair of each); ``--gcc --long`` times only K1
+and K9 (``ROUTE_GCC``) and K2, K3 and K5 (``ROUTE_SCENES``) at the
+shapes where the GCC goes through the mic rows' spectra, and K3 at the
+shapes of its render through the base rows' spectra, to 2^24
+(``--scene --long``: those of K2, K3 and K5 alone, then chip_smoke.py's
+simulated 20 s, 60 s and 120 s scenes on the fast path, ``long_scenes``,
+K3 at 2^20, 2^22 and 2^23: their wall time cold and warm and their
+device time by kernel), each after the spectra kernels' ptxas lines;
+``--recording`` runs chip_smoke.py's 4 x 24 s
 recording (phase 10, ``long_recording``) from this tree at 2^21 and 2^22,
 its 4 x 60 s recording at 2^23 (``recording23``) and its recordings of
-the spectra routes (``spectra_recordings``, 2^20 to 2^22): their wall
+the spectra routes (``spectra_recordings``, 2^20 to 2^23): their wall
 time cold and warm and their device time by kernel.  ``--trace`` (alone)
 counts the ``device_ms`` traces that miss a kernel, with and without
 their idle edges (``trace_check``).  ``k10``
@@ -208,23 +210,30 @@ GCC_SHAPES = {"api": (None, 4, 44100, 65536, BAND),
               "long22": (None, 4, 2000000, 1 << 22, None),
               "spectra20": (None, 4, 800000, 1 << 20, BAND),
               "spectra18": (None, 8, 200000, 1 << 18, BAND),
-              "spectra_block": (128, 16, 4000, 4096, BAND)}
+              "spectra_block": (128, 16, 4000, 4096, BAND),
+              "split23": (None, 4, 4200000, 1 << 23, None),
+              "split23_8": (None, 8, 4200000, 1 << 23, BAND),
+              "split24": (None, 4, 8400000, 1 << 24, None)}
 # --gcc --long: the shapes where K1's, K2's and K5's GCC goes through the
 # mic rows' spectra (``cuda_fft.gcc_route``; before, the radix-2 passes):
 # K1 at 11 mics x 65,536, 8 mics x 2^18, 4 mics of an 18 s recording at
-# 2^20, 128 x 16 mics at 4,096 and its shapes above 2^20 (GCC_SHAPES);
-# K2 (with K3 and K5 beside it, ``SCENE_SHAPES``' layout) at the fast
-# path's 4 mics at 2^20, 2^21 and 2^22, where K3's render also goes
+# 2^20, 128 x 16 mics at 4,096 and its shapes above 2^20 (GCC_SHAPES: to
+# 2^24, 4 and 8 mics at 2^23), K9 at its shapes above 2^20 (CORR_SHAPES,
+# to 2^24); K2 (with K3 and K5 beside it, ``SCENE_SHAPES``' layout) at
+# the fast path's 4 mics at 2^20 to 2^24, where K3's render also goes
 # through the base rows' spectra with its finish spread over the card,
 # 512 x 12 mics at 4,096 and one scene of 6 mics at 2^18; K3 alone at 2
-# scenes x 3 mics x 3 paths at 2^21 (mic rows packed across scenes) and
-# 64 scenes x 4 mics at 2^20 (rows that fill the card: one finish block a
-# mic row).
+# scenes x 3 mics x 3 paths at 2^21 and 2^23 (mic rows packed across
+# scenes) and 64 scenes x 4 mics at 2^20 (rows that fill the card: one
+# finish block a mic row).
 ROUTE_GCC = ("mics11", "spectra18", "spectra20", "spectra_block", "long",
-             "long8", "long22")
+             "long8", "long22", "split23", "split23_8", "split24")
 ROUTE_SCENES = {"fast20": (1, 4, 1, 900000, 800000, 1 << 20, 21, True),
                 "fast21": (1, 4, 1, 1600000, 1500000, 1 << 21, 21, True),
                 "fast22": (1, 4, 1, 3100000, 3000000, 1 << 22, 21, True),
+                "fast23": (1, 4, 1, 6200000, 6000000, 1 << 23, 21, True),
+                "fast24": (1, 4, 1, 12400000, 12000000, 1 << 24, 21, True),
+                "odd23": (2, 3, 3, 6200000, 6000000, 1 << 23, None, True),
                 "spectra_block": (512, 12, 1, 4094, 4000, 4096, 2, True),
                 "spectra18": (1, 6, 1, 250000, 200000, 1 << 18, 8, True),
                 "odd21": (2, 3, 3, 1600000, 1500000, 1 << 21, None, True),
@@ -232,10 +241,16 @@ ROUTE_SCENES = {"fast20": (1, 4, 1, 900000, 800000, 1 << 20, 21, True),
                              True)}
 CORR_SHAPES = {"main": (1, 44100, 65536), "no_gate": (1, 44100, 131072),
                "edge": (3, 3000, 4096), "long": (1, LONG, 1 << 21),
-               "long22": (1, 2000000, 1 << 22)}
+               "long22": (1, 2000000, 1 << 22),
+               "split23": (1, 4200000, 1 << 23),
+               "split24": (1, 8400000, 1 << 24)}
 GCC_TOL = 1e-6
-# The split's kernels whose compiler report --long prints.
+# The split's kernels whose compiler report --long prints (K4a's, K4b's
+# and K6's, then the spectra routes'; --gcc --long and --scene --long
+# print the latter alone).
 SPLIT_KERNELS = ("fft_real_cols", "fft_real_rows", "boot_rows", "boot_cols")
+SPECTRA_KERNELS = ("corr_rows", "corr_cols", "window_cols",
+                   "render_spec_rows", "render_cols")
 
 
 def time_ms(fn, reps: int, loops: int = 3):
@@ -695,8 +710,8 @@ def scene(reps: int = 5, log=print, shapes=None) -> dict:
 def gcc(reps: int = 5, log=print, min_nfft: int = 0,
         names=None) -> dict:
     """K1 (``gcc_all_pairs``) at ``GCC_SHAPES`` and K9 (``whitened_corr``)
-    at ``CORR_SHAPES`` (those from ``min_nfft`` on; with ``names``, K1 at
-    those shapes alone), each held against its twin within ``GCC_TOL``
+    at ``CORR_SHAPES`` (those from ``min_nfft`` on; with ``names``, those
+    whose names it holds), each held against its twin within ``GCC_TOL``
     (K1 at "chunks" against its float64 run within ``CHUNKS_TOL``; from
     2^20 within ``GCC_TOL`` plus the float32 twin's distance from its
     float64 run): CUDA-event ms per call (median of
@@ -730,7 +745,7 @@ def gcc(reps: int = 5, log=print, min_nfft: int = 0,
         elif nfft >= cf.STAGE_SPLIT_MAX:
             wide[("gcc_all_pairs", shape)] = double
     for shape, (rows, n, nfft) in CORR_SHAPES.items():
-        if nfft < min_nfft or names is not None:
+        if nfft < min_nfft or (names is not None and shape not in names):
             continue
         spec = cf.fft_real_plain(torch.randn((2 * rows, n), generator=gen,
                                              device=dev), nfft)
@@ -929,9 +944,9 @@ def recording(card: str) -> None:
     written, read back and localized with the noise null at nfft 2^21 and,
     under ``max_expected_delay=None``, 2^22, a warm call each, the device
     time by kernel), ``recording23`` (4 x 60 s at 44.1 kHz under
-    ``max_expected_delay=None``: K4a and K6 at 2^23, K1 on its passes) and
-    ``spectra_recordings`` (16 s on the full core at 2^20; 16, 30 and 60 s
-    on the fast path at 2^20 to 2^22), logged beside ``card``.  A tree
+    ``max_expected_delay=None``: K4a, K6 and K1 at 2^23) and
+    ``spectra_recordings`` (16 s on the full core at 2^20; 16, 30, 60 and
+    120 s on the fast path at 2^20 to 2^23), logged beside ``card``.  A tree
     whose K1, K2, K4a or K6 still runs its radix-2 passes there logs them
     (``hold_split=False``, ``hold_spectra=False``)."""
     smoke = _smoke()
@@ -942,9 +957,10 @@ def recording(card: str) -> None:
 
 
 def simulations(card: str) -> None:
-    """``chip_smoke.long_scenes`` of this tree (the simulated 20 s and 60 s
-    scenes on the fast path, K3's render at 2^20 and 2^22: wall time cold
-    and warm, device time by kernel, the TDOAs against the CPU's), logged
+    """``chip_smoke.long_scenes`` of this tree (the simulated 20 s, 60 s and
+    120 s scenes on the fast path, K3's render at 2^20, 2^22 and 2^23: wall
+    time cold and warm, device time by kernel, the TDOAs against the
+    CPU's), logged
     beside ``card``; a tree whose K3 still renders on the radix-2 passes
     there logs them (``hold_spectra=False``)."""
     smoke = _smoke()
@@ -986,7 +1002,8 @@ def main() -> int:
                          "shapes of their GCC through the mic rows' "
                          "spectra and of the render through the base "
                          "rows'; with --scene, only K2, K3 and K5 there "
-                         "and the simulated 20 s and 60 s scenes")
+                         "and the simulated 20 s, 60 s and 120 s scenes; "
+                         "with either, the spectra kernels' ptxas lines")
     ap.add_argument("--recording", action="store_true",
                     help="localize chip_smoke.py's 4 x 24 s recording "
                          "(phase 10) cold and warm, with its device time "
@@ -1018,13 +1035,14 @@ def main() -> int:
 
     if args.long or args.recording:
         if args.long and (args.gcc or args.scene):
+            ptxas_report(SPECTRA_KERNELS, log)
             if args.gcc:
                 gcc(args.reps, log, names=ROUTE_GCC)
             scene(args.reps, log, ROUTE_SCENES)
             if args.scene:
                 simulations(smi)
         elif args.long:
-            ptxas_report(SPLIT_KERNELS, log)
+            ptxas_report(SPLIT_KERNELS + SPECTRA_KERNELS, log)
             k4a(4 * args.reps, log, LONG_MIN)
             boot(2 * args.reps, log, LONG_MIN)
             k6(2 * args.reps, log, LONG_MIN)
