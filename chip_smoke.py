@@ -329,17 +329,22 @@ ADDED = {("delay_sum", "odd"): 1, ("gcc_windowed", "odd"): 1,
          ("delay_sum", "odd21"): 11, ("delay_sum", "scenes20"): 11,
          ("scene_windowed", "fast20"): 11, ("scene_windowed", "fast21"): 11,
          ("scene_windowed", "fast22"): 11, ("fft_real", "split24"): 12,
-         ("fft_real", "passes25"): 12, ("bootstrap_peaks", "split24"): 12,
-         ("bootstrap_peaks", "passes25"): 12,
+         ("fft_real", "split25"): 12, ("bootstrap_peaks", "split24"): 12,
+         ("bootstrap_peaks", "split25"): 12,
          ("noise_bootstrap_peaks", "split24"): 12,
          ("noise_bootstrap_peaks", "draws24"): 12,
-         ("noise_bootstrap_peaks", "passes25"): 12,
+         ("noise_bootstrap_peaks", "split25"): 12,
          ("delay_sum", "fast23"): 13, ("delay_sum", "fast24"): 13,
          ("gcc_all_pairs", "split23"): 13, ("gcc_all_pairs", "split23_8"): 13,
          ("gcc_all_pairs", "split24"): 13, ("gcc_windowed", "fast23"): 13,
          ("gcc_windowed", "fast24"): 13, ("whitened_corr", "split23"): 13,
          ("whitened_corr", "split24"): 13, ("whitened_corr", "passes25"): 13,
-         ("scene_windowed", "fast23"): 13, ("scene_windowed", "fast24"): 13}
+         ("scene_windowed", "fast23"): 13, ("scene_windowed", "fast24"): 13,
+         ("fft_real", "split26"): 14, ("fft_real", "passes27"): 14,
+         ("bootstrap_peaks", "split26"): 14,
+         ("bootstrap_peaks", "passes27"): 14,
+         ("noise_bootstrap_peaks", "split26"): 14,
+         ("noise_bootstrap_peaks", "passes27"): 14}
 # The sweep across K2's, K3's and K5's scene-chunk boundary: one scene past
 # the 65,535 grid rows of one launch at 4 mics (3 couples), at nfft 512.
 CHUNK_SCENES = 21846
@@ -347,26 +352,32 @@ LONG_NFFT = 1 << 21       # K4a's, K4b's and K6's split of 8-wide strips
 LONG_SAMPLES = 1046019    # 23.7 s at 44.1 kHz: the api's nfft passes 2^20
 LONG_DRAWS = 64
 # Phase 3's cases above 2^20: (samples, nfft) of one row at K9's and the
-# GCCs' largest split (2,048 x 2,048: 8 columns and 8 rows a strip), at
-# K4a's, K4b's and K6's splits past it (2,048 x 4,096: 8 columns, 4 rows;
+# GCCs' largest split in the columns (2,048 x 2,048: 8 columns and 8 rows
+# a strip), at the splits past it (2,048 x 4,096: 8 columns, 4 rows;
 # 4,096 x 4,096: 4 and 4; a 47.5 s and a 95 s recording at 44.1 kHz under
-# ``max_expected_delay=None``) and past those (the radix-2 passes), with
-# their device kernels a call there (K4a: the packing, 25 passes, the
-# split; K4b: the packing, 25 forward passes, the whitening, 24 inverse
-# ones and the last with the maxima; K6: its first pass draws the rows);
-# K6's draws at 2^24 that take two launches under the byte cap.
+# ``max_expected_delay=None``), past 2^24 (K9's radix-2 passes; K4a's,
+# K4b's and K6's split of 4,096 x 8,192, 4 columns and 2 rows, and 8,192
+# x 8,192, 2 and 2: a 190 s and a 375 s recording) and past 2^26 (K4a's,
+# K4b's and K6's radix-2 passes), with their device kernels a call there
+# (K4a: the packing, 27 passes, the split; K4b: the packing, 27 forward
+# passes, the whitening, 26 inverse ones and the last with the maxima;
+# K6: its first pass draws the rows); K6's draws at 2^24 that take two
+# launches under the byte cap.
 LONG22 = (2000000, 1 << 22)
 SPLIT23 = (4200000, 1 << 23)
 SPLIT24 = (8400000, 1 << 24)
 PASSES25 = (16800000, 1 << 25)
+SPLIT25 = PASSES25
+SPLIT26 = (33000000, 1 << 26)
+PASSES27 = (67000000, 1 << 27)
 DRAWS24 = 300
 # Phase 3's cases of the spectra routes: one scene's samples at the fast
 # path's (and the full core's) 2^20 to 2^24 under DEFAULT_CONFIG (18.1,
 # 34.0, 68.0, 136.1 and 272.1 s at 44.1 kHz).
 FAST_SAMPLES = {1 << 20: 800000, 1 << 21: 1500000, 1 << 22: 3000000,
                 1 << 23: 6000000, 1 << 24: 12000000}
-PASSES25_KERNELS = {"fft_real": 27, "bootstrap_peaks": 52,
-                    "noise_bootstrap_peaks": 51}
+PASSES27_KERNELS = {"fft_real": 29, "bootstrap_peaks": 56,
+                    "noise_bootstrap_peaks": 55}
 # The card's name and power limit (nvidia-smi), set by main().
 CARD = ["not read"]
 # Device kernels a call of K3 or K2 runs at phase 3's one-block shapes
@@ -796,15 +807,18 @@ def kernel_phase(cf, torch):
     # "long22" one row at 2^22, on the split with strips of 8 columns (2
     # device kernels a call); "split23" and "split24" one row at 2^23 and
     # 2^24 on K4a's split past K9's (the long side in the rows: 2,048 x
-    # 4,096 and 4,096 x 4,096, 2 device kernels); "passes25" one row at
-    # 2^25, past it, on the radix-2 passes.
+    # 4,096 and 4,096 x 4,096, 2 device kernels); "split25" and "split26"
+    # one row at 2^25 and 2^26 (4,096 x 8,192 and 8,192 x 8,192, the
+    # n2-point table read from device memory, 2 device kernels);
+    # "passes27" one row at 2^27, past the split, on the radix-2 passes.
     for tag, (rows_n, length, nfft) in {
             "main": (1, N, NFFT), "no_gate": (1, N, 2 * NFFT),
             "single_pair": (2, N, NFFT), "rows": (1024, NFFT, NFFT),
             "edge": (1, 3000, 4096),
             "long": (2, LONG_SAMPLES, LONG_NFFT),
             "long22": (1,) + LONG22, "split23": (1,) + SPLIT23,
-            "split24": (1,) + SPLIT24, "passes25": (1,) + PASSES25}.items():
+            "split24": (1,) + SPLIT24, "split25": (1,) + SPLIT25,
+            "split26": (1,) + SPLIT26, "passes27": (1,) + PASSES27}.items():
         draw("fft_real", tag)
         x = randn(rows_n, length).contiguous()
         res = compare(
@@ -821,10 +835,11 @@ def kernel_phase(cf, torch):
             f"{device_ms(lambda: cf.fft_real(x, nfft))['total']:.4f} ms, "
             f"torch.fft.rfft "
             f"{device_ms(lambda: torch.fft.rfft(x, n=nfft))['total']:.4f} ms")
-        if tag in ("long", "long22", "split23", "split24", "passes25"):
+        if tag in ("long", "long22", "split23", "split24", "split25",
+                   "split26", "passes27"):
             log_device(f"fft_real[{tag}]", lambda: cf.fft_real(x, nfft),
-                       kernels=PASSES25_KERNELS["fft_real"]
-                       if tag == "passes25" else 2)
+                       kernels=PASSES27_KERNELS["fft_real"]
+                       if tag == "passes27" else 2)
         if tag == "main":
             results["fft_real"] = res
         del x
@@ -833,23 +848,24 @@ def kernel_phase(cf, torch):
         """Device kernels a call of K4b or K6 at a case above 2^20: three
         on the split (the column pass, the row pass, the column pass with
         the maxima), six where the draws take two launches under the
-        scratch's byte cap, the radix-2 passes' count at 2^25; None
+        scratch's byte cap, the radix-2 passes' count at 2^27; None
         below."""
         if tag.startswith(("long", "split")):
             return 3
         if tag == "draws24":
             return 6
-        return PASSES25_KERNELS[name] if tag == "passes25" else None
+        return PASSES27_KERNELS[name] if tag == "passes27" else None
 
     # K4b: bootstrap null at 1000 permuted rows, at the main path's 65,536
     # and no_gate's 131,072 (three launches over the four-step split);
     # edges: two rows (16-row strips) and 999 rows at 4,096 (one block).
     # Above 2^20: the 23.7 s pair's null at phase 10's 64 draws and at the
     # default 1,000 (2,048 x 1,024: strips of 8 columns, 16 rows), 3 rows
-    # at 2^22 (8 columns, 8 rows), at 2^23 (8 columns, 4 rows) and at 2^24
-    # (4 and 4), 3 device kernels a call each, and 3 rows at 2^25 on the
-    # radix-2 passes; their twins run in chunks of rows (the bench tool's
-    # ``twin_rows``; up to 2^16 one call).
+    # at 2^22 (8 columns, 8 rows), at 2^23 (8 columns, 4 rows), at 2^24
+    # (4 and 4), at 2^25 (4 and 2) and at 2^26 (2 and 2), 3 device kernels
+    # a call each, and 3 rows at 2^27 on the radix-2 passes; their twins
+    # run in chunks of rows (the bench tool's ``twin_rows``; up to 2^16
+    # one call).
     # The device time per call and the device kernels a call runs
     # (torch.profiler) are logged beside the CUDA-event time.
     for tag, (rows_n, length, nfft) in {
@@ -858,7 +874,8 @@ def kernel_phase(cf, torch):
             "long": (LONG_DRAWS, LONG_SAMPLES, LONG_NFFT),
             "long1000": (NULL_DRAWS, LONG_SAMPLES, LONG_NFFT),
             "long22": (3,) + LONG22, "split23": (3,) + SPLIT23,
-            "split24": (3,) + SPLIT24, "passes25": (3,) + PASSES25}.items():
+            "split24": (3,) + SPLIT24, "split25": (3,) + SPLIT25,
+            "split26": (3,) + SPLIT26, "passes27": (3,) + PASSES27}.items():
         draw("bootstrap_peaks", tag)
         sig2 = randn(length)
         keys = rand(rows_n, length)
@@ -897,7 +914,8 @@ def kernel_phase(cf, torch):
             "long1000": (NULL_DRAWS, LONG_SAMPLES, LONG_NFFT),
             "long22": (3,) + LONG22, "split23": (3,) + SPLIT23,
             "split24": (3,) + SPLIT24, "draws24": (DRAWS24,) + SPLIT24,
-            "passes25": (3,) + PASSES25}.items():
+            "split25": (3,) + SPLIT25, "split26": (3,) + SPLIT26,
+            "passes27": (3,) + PASSES27}.items():
         draw("noise_bootstrap_peaks", tag)
         s1 = cf.fft_real_plain(randn(1, n_samp), nfft)[0].contiguous()
         seeds = randint(rows_n, 2)
@@ -1054,7 +1072,8 @@ def kernel_phase(cf, torch):
     # recording at 2^21 and of 2,000,000 samples at 2^22 (the split with
     # strips of 8, 2 device kernels a call), of 4,200,000 at 2^23 (8
     # columns, 4 rows) and 8,400,000 at 2^24 (4 and 4), 2 device kernels
-    # a call; of 16,800,000 at 2^25 on the radix-2 passes.
+    # a call; of 16,800,000 at 2^25 on the radix-2 passes (K9's split, as
+    # the spectra routes', stops at 2^24).
     for tag, (rows_n, length, nfft) in {"main": (1, N, NFFT),
                                         "edge": (3, 3000, 4096),
                                         "no_gate": (1, N, 2 * NFFT),
@@ -3250,6 +3269,51 @@ def recording23(cf, torch, launches, hold_split=True):
         f"{passes or 'none'}")
 
 
+# Step 3c's recording: 4 mics x 200 s at 44.1 kHz (no resampling) with
+# ``REC23_DELAYS``, whose GCC and noise null transform at 2^25 under
+# ``max_expected_delay=None`` (next_pow2(2n - 1)): K4a and K6 on their
+# split of 4,096 x 8,192, K1 on its radix-2 passes (the spectra routes
+# stop at 2^24).
+REC25_SECONDS = 200
+
+
+def recording25(cf, torch, launches, hold_split=True):
+    """Step 3c: 4 mics x 200 s at 44.1 kHz of a seeded noise source with
+    whole-sample delays (``REC23_DELAYS``), written by the port's write_wav
+    and read back without resampling, localized under
+    ``max_expected_delay=None`` with the noise null at ``LONG_DRAWS`` draws
+    a pair (384 draws of 8,820,000 samples): nfft 2^25, K4a and K6 on
+    their split (4,096 x 8,192, the n2-point table read from device
+    memory), K1 on its radix-2 passes.  Each TDOA within 0.5 samples of
+    its injected delay; then a second, warm call's wall time and one more
+    call's device time by kernel (``torch.profiler``), which holds no
+    kernel of K4a's or K6's passes (``K4A_K6_PASS_KERNELS``; ``hold_split``
+    False only logs them, for an A/B against a tree that runs them); K1's
+    pass kernels are logged (``K1_PASS_KERNELS``).  Returns the device
+    time by kernel."""
+    from pyaudiolocalization_tpu_torch import api
+    n = int(FS) * REC25_SECONDS
+    paths = _noise_recording(200, FS, n, REC23_DELAYS, "chip_smoke_rec25_")
+    nfft = api._physical_nfft(n, FS, None)
+    name = (f"the {REC25_SECONDS} s recording at 44.1 kHz (noise null, "
+            "max_expected_delay=None)")
+    log(f"{name}: nfft {nfft}, K4a's and K6's schedule n1="
+        f"{cf._split_n1(nfft)}, K1's n1={cf.gcc_route(nfft, 4).n1}")
+    if nfft != SPLIT25[1]:
+        raise AssertionError(f"{name} misses nfft {SPLIT25[1]}")
+    dev = _localize_recording(cf, torch, launches, name, paths, None,
+                              _pair_delays(REC23_DELAYS), "files")
+    own = [k for k in dev if any(p in k for p in K4A_K6_PASS_KERNELS)]
+    k1 = [k for k in dev if any(p in k for p in K1_PASS_KERNELS)]
+    if own and hold_split:
+        raise AssertionError(f"{name} ran K4a's or K6's radix-2 passes: "
+                             f"{own}")
+    log(f"{name}: K4a's and K6's radix-2 pass kernels in the trace: "
+        f"{own or 'none'}; K1's (its passes above 2^24): "
+        f"{', '.join(f'{k} {dev[k]:.3f}' for k in k1) or 'none'}")
+    return dev
+
+
 def spectra_recordings(cf, torch, launches, hold_spectra=True):
     """Step 4: 4-mic recordings at 44.1 kHz written by the port's
     write_wav and read back (no resampling), whose GCC transforms at 2^20
@@ -3527,6 +3591,8 @@ def recorded_phase(cf, torch, golden, sweep_golden, launches):
         long_recording(cf, torch, launches)
     with profiling.stage("phase 10: the 60 s recording at 2^23"):
         recording23(cf, torch, launches)
+    with profiling.stage("phase 10: the 200 s recording at 2^25"):
+        recording25(cf, torch, launches)
     with profiling.stage("phase 10: the spectra routes' recordings"):
         spectra_recordings(cf, torch, launches)
     with profiling.stage("phase 10: compat on the card"):

@@ -11,8 +11,8 @@
 //    shared memory a block can hold, so every pass streams the rows
 //    through device memory (and the 50 MB L2): 16 bytes per point per
 //    pass, about 16 * log2(n) bytes per point and transform, and one
-//    launch per pass.  K1, K2, K3, K5 and K9 run on it above 2^22, K4a,
-//    K4b and K6 above 2^24; they fuse their first or last pass into a
+//    launch per pass.  K1, K2, K3, K5 and K9 run on it above 2^24, K4a,
+//    K4b and K6 above 2^26; they fuse their first or last pass into a
 //    prologue or epilogue.
 //
 // 2. On-chip sub-transforms (`block_fft`): one block transforms S
@@ -36,8 +36,9 @@
 //    mix row pass and the column pass; up to 1024 x 1024 with strips of
 //    kStrip sequences, for K1, K2, K3, K4a, K4b, K5, K6 and K9 up to
 //    2048 x 2048 with strips of 8 where 16 would pass kElems * 1024
-//    points, and for K4a, K4b and K6 up to 4096 x 4096, the long side in
-//    the rows (2048 x 4096 at 2^23), with strips of 4 at 4,096); the
+//    points, and for all of them up to 4096 x 4096, the long side in the
+//    rows (2048 x 4096 at 2^23), with strips of 4 at 4,096, and for K4a,
+//    K4b and K6 up to 8192 x 8192 with strips of 2 at 8,192); the
 //    length-n2 rows of a (n2, 128) plane are one (K10b, and K10a with its
 //    radix-16 stages on the tensor cores), and so are the 128-point lane
 //    DFTs of 32 of its rows (K10c).
@@ -53,8 +54,8 @@ namespace palt {
 
 constexpr int kThreads = 256;
 constexpr int kStrip = 16;  // sequences a strip transform holds (tuned;
-                            // the split above 2^20 takes 8 at 2,048 and
-                            // 4 at 4,096)
+                            // the split above 2^20 takes 8 at 2,048, 4 at
+                            // 4,096 and 2 at 8,192)
 constexpr int kElems = 16;  // points a thread holds per stage
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {

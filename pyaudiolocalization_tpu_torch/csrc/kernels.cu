@@ -220,7 +220,7 @@ inline int sm_count() {
 }
 
 // Calls launch(std::integral_constant<int, S>()) for K4a's pass-2 strip
-// width s2 = S of 4, 8, 16, 32 or 64 rows (a template argument of the
+// width s2 = S of 2, 4, 8, 16, 32 or 64 rows (a template argument of the
 // kernel).
 template <typename Launch>
 cudaError_t with_strip(int s2, Launch launch) {
@@ -229,6 +229,7 @@ cudaError_t with_strip(int s2, Launch launch) {
   if (s2 == 16) return launch(std::integral_constant<int, 16>());
   if (s2 == 8) return launch(std::integral_constant<int, 8>());
   if (s2 == 4) return launch(std::integral_constant<int, 4>());
+  if (s2 == 2) return launch(std::integral_constant<int, 2>());
   return cudaErrorInvalidValue;
 }
 
@@ -243,6 +244,35 @@ cudaError_t with_split_strip(int strip, Launch launch) {
     return launch(std::integral_constant<int, palt::kStrip>());
   if (strip == 8) return launch(std::integral_constant<int, 8>());
   if (strip == 4) return launch(std::integral_constant<int, 4>());
+  return cudaErrorInvalidValue;
+}
+
+// The largest n2 whose n2-point table `hi` the split kernels stage in
+// shared memory (every shape up to 2^24); above, at n2 = 8,192 (2^25 and
+// 2^26, K4a's, K4b's and K6's split only), `fft_real_cols` and `boot_rows`
+// read it from device memory (`HiTable`), so that their strips fit
+// (``cuda_fft.split_hi_points``).
+constexpr int kHiSharedMax = 4096;
+
+// Calls launch(std::integral_constant<int, S>(), std::bool_constant<kHi>())
+// for a strip of K4a's, K4b's and K6's split at n2: up to kHiSharedMax
+// `with_split_strip`'s strips with kHi = false, so that every shape up to
+// 2^24 builds the kernels it had; above, strips of 2 up to kWidest (4 for
+// the column passes at n1 = 4,096, 2 at 8,192; 2 for the row passes) with
+// kHi = true (``cuda_fft.split_strips``).  The spectra routes stop at 2^24
+// and never instantiate these.
+template <int kWidest = 4, typename Launch>
+cudaError_t with_long_strip(int strip, int n2, Launch launch) {
+  if (n2 <= kHiSharedMax)
+    return with_split_strip(strip, [&](auto s) {
+      return launch(s, std::false_type());
+    });
+  if constexpr (kWidest >= 4) {
+    if (strip == 4)
+      return launch(std::integral_constant<int, 4>(), std::true_type());
+  }
+  if (strip == 2)
+    return launch(std::integral_constant<int, 2>(), std::true_type());
   return cudaErrorInvalidValue;
 }
 
@@ -273,7 +303,12 @@ cudaError_t with_split_strip(int strip, Launch launch) {
 // the rows, n1 <= n2: 2048 x 4096 at 2^23 keeps the 8-column strips (184
 // KB) and takes pass-2 strips of 4 rows (2 rows k1 and their partners),
 // 4096 x 4096 at 2^24 strips of 4 columns (208 KB; one 32-byte sector a
-// row) and of 4 rows.  Nothing here needs n1 >= n2: the twiddle e = j2*k1
+// row) and of 4 rows.  At 2^25 (4,096 x 8,192) and 2^26 (8,192 x 8,192)
+// the column strips hold 4 and 2 columns and pass 2's 2 rows (one row k1
+// and its partner), and the column pass keeps only lo in shared memory,
+// reading hi from device memory (`HiTable`: 180,224 and 229,376 bytes a
+// block; with hi 245,760 and 294,912, past the 232,448 a block may
+// take).  Nothing here needs n1 >= n2: the twiddle e = j2*k1
 // < n splits as W_n2^{e / n1} W_n^{e mod n1} at any n1, the sub-twiddles
 // of either side are every (n/L)-th entry of the table, and the partner
 // rows n1 - k1 (row n1/2 in the slot of row 0's) are rows of n1.  Bound:
@@ -400,6 +435,43 @@ __device__ __forceinline__ float2 split_twiddle(const float2* lo,
   return cmul(hi[e >> (__ffs(n1) - 1)], lo[e & (n1 - 1)]);
 }
 
+// hi[a] = W_n2^a read where n2 > kHiSharedMax (2^25, 2^26) from the
+// contiguous n2-point half table after the n-point and n1-point ones
+// (``cuda_fft._twiddles``) through the read-only path: the floats that
+// `stage_split_tables_of` would stage, with its sign flip for a >= n2/2,
+// so `split_twiddle` multiplies the same two table entries once.
+struct HiTable {
+  const float2* t2;
+  int h2;
+  __device__ __forceinline__ float2 operator[](int a) const {
+    const float2 w = __ldg(t2 + (a & (h2 - 1)));
+    return a < h2 ? w : make_float2(-w.x, -w.y);
+  }
+};
+
+__device__ __forceinline__ float2 split_twiddle(const float2* lo,
+                                                const HiTable& hi, int e,
+                                                int n1) {
+  return cmul(hi[e >> (__ffs(n1) - 1)], lo[e & (n1 - 1)]);
+}
+
+// The split's tables where hi stays in device memory (kHi): lo[r] = W_n^r
+// (r < n1) staged from the n-point table, as `stage_split_tables_of` does
+// above 2^20, and the `HiTable`; else `stage_split_tables_of<kWhere>` and
+// hi in shared memory, as before.  Returns what `split_twiddle` reads hi
+// from.
+template <bool kHi, int kWhere>
+__device__ __forceinline__ auto stage_split_lo_hi(
+    float2* lo, float2* hi, const float2* __restrict__ tw, int n1, int n2) {
+  if constexpr (kHi) {
+    for (int r = threadIdx.x; r < n1; r += blockDim.x) lo[r] = tw[r];
+    return HiTable{tw + ((size_t)n1 * n2 >> 1) + (n1 >> 1), n2 >> 1};
+  } else {
+    stage_split_tables_of<kWhere>(lo, hi, tw, n1, n2);
+    return static_cast<const float2*>(hi);
+  }
+}
+
 // Loaders of the forward passes: `load.row(c)` gives point t (< n) of
 // packed row c, rows 2c and 2c+1 as its real and imaginary parts, zero
 // from the rows' length on and in the imaginary part of an odd count's
@@ -480,13 +552,14 @@ struct PackedLoad {
   }
 };
 
-// Pass 1.  Grid (n2 / S column strips, packed rows), S = kStrip (16), 8
-// or 4 columns a strip (n1 * S <= kElems * 1024).  The twiddle W_n^{j2 k1}
-// from the two tables of `stage_split_tables_of` (above 2^20 the
+// Pass 1.  Grid (n2 / S column strips, packed rows), S = kStrip (16), 8,
+// 4 or 2 columns a strip (n1 * S <= kElems * 1024).  The twiddle W_n^{j2
+// k1} from the two tables of `stage_split_tables_of` (above 2^20 the
 // n1-point sub-twiddles and the n2-point table read contiguously from the
-// half tables after the n-point one).  The block writes the strip it
-// read, so y may be the loader's own buffer.
-template <class Load, int S>
+// half tables after the n-point one; with kHi, at n2 = 8,192, hi read
+// from device memory, `stage_split_lo_hi`).  The block writes the strip
+// it read, so y may be the loader's own buffer.
+template <class Load, int S, bool kHi = false>
 __global__ void __launch_bounds__(1024)
 fft_real_cols(Load load, int n1, int n2, const float2* __restrict__ tw,
               float2* y) {
@@ -494,7 +567,7 @@ fft_real_cols(Load load, int n1, int n2, const float2* __restrict__ tw,
   float2* stw = palt::fft_shared();
   float2* lo = stw + (n1 >> 1);
   float2* hi = lo + n1;
-  float2* buf = hi + n2;
+  float2* buf = kHi ? hi : hi + n2;
   const int n = n1 * n2;
   const int c = blockIdx.y;
   const int c0 = blockIdx.x * S;
@@ -502,7 +575,7 @@ fft_real_cols(Load load, int n1, int n2, const float2* __restrict__ tw,
   // Column strips below 16 occur only above 2^20, of 16 only up to it.
   constexpr int kWhere = S < palt::kStrip ? 1 : 0;
   stage_split_twiddles<kWhere>(stw, tw, n1, n2, false);
-  stage_split_tables_of<kWhere>(lo, hi, tw, n1, n2);
+  const auto hv = stage_split_lo_hi<kHi, kWhere>(lo, hi, tw, n1, n2);
   const int total = n1 * S;
   float2 v[kElems];
 #pragma unroll
@@ -522,19 +595,22 @@ fft_real_cols(Load load, int n1, int n2, const float2* __restrict__ tw,
     const int k1 = idx / S;
     const int j2 = c0 + idx % S;
     yc[(size_t)k1 * n2 + j2] =
-        cmul(buf[idx], split_twiddle(lo, hi, j2 * k1, n1));
+        cmul(buf[idx], split_twiddle(lo, hv, j2 * k1, n1));
   }
 }
 
-// Pass 1 over `packed` rows of load into y, strips of S columns.
-template <int S = palt::kStrip, class Load>
+// Pass 1 over `packed` rows of load into y, strips of S columns; kHi: hi
+// read from device memory (n2 > kHiSharedMax), not staged.
+template <int S = palt::kStrip, bool kHi = false, class Load>
 cudaError_t cols_launch(Load load, int packed, int n1, int n2,
                         const float2* tw, float2* y, cudaStream_t s) {
-  const int smem = (n1 / 2 + n1 + n2 + n1 * S) * (int)sizeof(float2);
-  const cudaError_t err = palt::allow_smem<fft_real_cols<Load, S>>();
+  const int smem =
+      (n1 / 2 + n1 + (kHi ? 0 : n2) + n1 * S) * (int)sizeof(float2);
+  const cudaError_t err = palt::allow_smem<fft_real_cols<Load, S, kHi>>();
   if (err != cudaSuccess) return err;
-  fft_real_cols<Load, S><<<dim3(n2 / S, packed), palt::fft_threads(n1, S),
-                           smem, s>>>(load, n1, n2, tw, y);
+  fft_real_cols<Load, S, kHi><<<dim3(n2 / S, packed),
+                                palt::fft_threads(n1, S), smem, s>>>(
+      load, n1, n2, tw, y);
   return cudaGetLastError();
 }
 
@@ -542,7 +618,7 @@ cudaError_t cols_launch(Load load, int packed, int n1, int n2,
 // rows) -> out (rows, n/2 + 1).  The output's runs of consecutive bins are
 // S / 2 long: S = 64 or 32 where the strip fits in shared memory and the
 // batch fills the card, 8 at n2 = 2,048 (runs of 4 bins, one 32-byte
-// sector), 4 at 4,096 (runs of 2), else 16
+// sector), 4 at 4,096 (runs of 2), 2 at 8,192 (single bins), else 16
 // (``cuda_fft.fft_real_rows_strip``).
 template <int S>
 __global__ void __launch_bounds__(1024)
@@ -597,7 +673,7 @@ fft_real_rows(const float2* __restrict__ y, int rows, int n1, int n2,
   }
 }
 
-// K4a above 2^24 (n1 = 0), after the radix-2 passes: packed natural-order
+// K4a above 2^26 (n1 = 0), after the radix-2 passes: packed natural-order
 // rows z (ceil(rows/2), n) -> the two real spectra, bins 0..n/2 of rows
 // 2c and 2c+1 of out (rows, n/2 + 1).  The split's bound holds: one read
 // of the packed row and one write of each spectrum.
@@ -617,7 +693,7 @@ __global__ void split_spectra(const float2* __restrict__ z, int rows, int n,
   }
 }
 
-// Pass 2 with S = s2 (4, 8, 16, 32 or 64).
+// Pass 2 with S = s2 (2, 4, 8, 16, 32 or 64).
 int fft_real_rows_launch(const float2* y, int rows, int n1, int n2, int s2,
                          const float2* tw, float2* out, cudaStream_t s) {
   const int packed = (rows + 1) / 2;
@@ -789,7 +865,7 @@ __global__ void last_pass_window(const float2* __restrict__ in,
 // mirrored, whose inverse column DFTs end in the maxima.  A maximum does
 // not depend on where a sample lies, so the output of the inverse is never
 // put in natural order.  For n <= 4096 one block holds the packed row
-// (`boot_block`); above 2^24 the radix-2 passes of `boot_stage` run
+// (`boot_block`); above 2^26 the radix-2 passes of `boot_stage` run
 // instead.  K6 is the same pipeline with its rows drawn by the loader
 // (`NoiseLoad`) where K4b reads them (`RowLoad`).  Bound: device memory,
 // one read of the rows and two reads and two writes of the packed buffer
@@ -805,7 +881,12 @@ __global__ void last_pass_window(const float2* __restrict__ in,
 // row; of 4 it reads one.  So above 2^22 the long side goes to the rows:
 // 2,048 x 4,096 at 2^23 (columns 8, `boot_rows` 4 rows: 196,640 bytes)
 // and 4,096 x 4,096 at 2^24 (4 and 4: 212,992 and 213,024 bytes), whose
-// column passes read one sector a row; above 2^24 the passes.
+// column passes read one sector a row.  At n2 = 8,192 the tables leave no
+// room for a strip: 4,096 x 8,192 at 2^25 (columns 4, `boot_rows` 2 rows,
+// one row k1 and its partner) and 8,192 x 8,192 at 2^26 (2 and 2) hold
+// the n2-point table hi in device memory (`HiTable`; 180,224 / 196,736
+// and 229,376 / 229,504 bytes); `boot_cols` holds no hi table at any
+// length.  Above 2^26 the passes.
 
 // In place, bins q <= n/2 (at zq) and n - q (at zm; the same place for q
 // = 0 and n/2) of the packed forward spectrum -> the packed whitened
@@ -969,12 +1050,12 @@ __device__ __forceinline__ void load_rows(const float2* yc, float2* buf,
 }
 
 // yc rows pair_row(b, r) <- the strip's inverse row DFTs times W_n^{-j2
-// k1} (the tables of `stage_split_tables`); ld as `load_rows`.
-template <int S = palt::kStrip>
+// k1} (the tables of `stage_split_tables`, or hi as a `HiTable`); ld as
+// `load_rows`.
+template <int S = palt::kStrip, class Hi = const float2*>
 __device__ __forceinline__ void store_rows(const float2* buf, float2* yc,
-                                           const float2* lo,
-                                           const float2* hi, int b, int n1,
-                                           int n2, int ld = 0) {
+                                           const float2* lo, Hi hi, int b,
+                                           int n1, int n2, int ld = 0) {
   constexpr int kPairs = S / 2;
   if (ld == 0) ld = n2 + 1;
   const int total = S * n2;
@@ -1021,20 +1102,23 @@ __device__ __forceinline__ void cols_inverse(const float2* yc, float2* buf,
 // 3.  The rows go back whole, so the strip's width does not set the
 // length of the output's runs as in K4a's pass 2: 16 rows keep a block at
 // n2 threads (8 rows at n2 = 2,048: 1,024 threads, 172 KB; 4 rows at
-// 4,096: 1,024 threads, 192-208 KB), and at n2 <= 256 (kMaxThreads 256)
-// two blocks an SM with up to 128 registers a thread.  The forward and
+// 4,096: 1,024 threads, 192-208 KB; 2 rows, one row k1 and its partner,
+// at 8,192 with kHi, hi read from device memory: 192-224 KB), and at n2
+// <= 256 (kMaxThreads 256) two blocks an SM with up to 128 registers a
+// thread.  The forward and
 // the inverse row DFTs are `block_fft_inline`, each inlined where it is
 // called.  E points a thread (kElems, or twice as many in half the
 // threads where kMaxThreads = 512, above 2^20: up to 128 registers a
 // thread at one block an SM).
-template <int kMaxThreads, int kMinBlocks, int S, int E = palt::kElems>
+template <int kMaxThreads, int kMinBlocks, int S, int E = palt::kElems,
+          bool kHi = false>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 boot_rows(const float2* __restrict__ s1, int rows, int n1, int n2, float eps,
           const float2* __restrict__ tw, float2* y, float* __restrict__ out) {
   float2* stw = palt::fft_shared();
   float2* lo = stw + (n2 >> 1);
   float2* hi = lo + n1;
-  float2* buf = hi + n2;
+  float2* buf = kHi ? hi : hi + n2;
   const int ld = row_ld<S>(n2);  // conflict-free half-warps
   const int n = n1 * n2;
   const int c = blockIdx.y;
@@ -1046,7 +1130,7 @@ boot_rows(const float2* __restrict__ s1, int rows, int n1, int n2, float eps,
   // The 512-thread build runs only above 2^20, the others only up to it.
   constexpr int kWhere = kMaxThreads == 512 ? 1 : 0;
   stage_split_twiddles<kWhere>(stw, tw, n1, n2, true);
-  stage_split_tables_of<kWhere>(lo, hi, tw, n1, n2);
+  const auto hv = stage_split_lo_hi<kHi, kWhere>(lo, hi, tw, n1, n2);
   float2* yc = y + (size_t)c * n;
   load_rows<S, E>(yc, buf, b, n1, n2, ld);
   palt::block_fft_inline<S, palt::Radix16<S, E>, E>(buf, 1, ld, n2, stw,
@@ -1058,7 +1142,7 @@ boot_rows(const float2* __restrict__ s1, int rows, int n1, int n2, float eps,
   }
   palt::block_fft_inline<S, palt::Radix16<S, E>, E>(buf, 1, ld, n2, stw,
                                                     -1.0f);
-  store_rows<S>(buf, yc, lo, hi, b, n1, n2, ld);
+  store_rows<S>(buf, yc, lo, hv, b, n1, n2, ld);
 }
 
 // Pass 3, pass 1 mirrored.  Grid (n2 / S column strips, packed rows),
@@ -1096,16 +1180,16 @@ boot_cols(const float2* __restrict__ y, int rows, int n1, int n2,
 
 // K4b's and K6's row pass, strips of S rows: fft_threads(n2, S) threads
 // a block up to 2^20, half as many with twice the points a thread above
-// (1,024 -> 512 at every strip there; strips of 8 and 4 rows occur only
-// there).
-template <int S>
+// (1,024 -> 512 at every strip there; strips of 8, 4 and 2 rows occur
+// only there); kHi (n2 > kHiSharedMax): hi read from device memory.
+template <int S, bool kHi = false>
 cudaError_t boot_rows_launch(const float2* s1, int rows, int n1, int n2,
                              float eps, const float2* tw, float2* buf,
                              float* out, cudaStream_t s) {
   const dim3 grid(n1 / S, (rows + 1) / 2);
   const int threads = palt::fft_threads(n2, S);
-  const int smem =
-      (n2 / 2 + n1 + n2 + S * row_ld<S>(n2)) * (int)sizeof(float2);
+  const int smem = (n2 / 2 + n1 + (kHi ? 0 : n2) + S * row_ld<S>(n2)) *
+                   (int)sizeof(float2);
   cudaError_t err;
   if constexpr (S == palt::kStrip) {  // 8 or 4 rows at n2 = 2,048, 4,096
     if (n2 <= 256) {
@@ -1117,10 +1201,11 @@ cudaError_t boot_rows_launch(const float2* s1, int rows, int n1, int n2,
     }
   }
   if (S < palt::kStrip || (size_t)n1 * n2 > ((size_t)1 << 20)) {
-    err = palt::allow_smem<boot_rows<512, 1, S, 2 * palt::kElems>>();
+    err = palt::allow_smem<boot_rows<512, 1, S, 2 * palt::kElems, kHi>>();
     if (err != cudaSuccess) return err;
-    boot_rows<512, 1, S, 2 * palt::kElems><<<grid, threads / 2, smem, s>>>(
-        s1, rows, n1, n2, eps, tw, buf, out);
+    boot_rows<512, 1, S, 2 * palt::kElems, kHi>
+        <<<grid, threads / 2, smem, s>>>(s1, rows, n1, n2, eps, tw, buf,
+                                         out);
     return cudaGetLastError();
   }
   if constexpr (S == palt::kStrip) {  // strips below 16 run above 2^20
@@ -1134,7 +1219,8 @@ cudaError_t boot_rows_launch(const float2* s1, int rows, int n1, int n2,
 
 // K4b / K6 on the split (n1 > 1) or in one block (n1 = 1) for rows given
 // by load; buf (ceil(rows/2), n) is the split's scratch.  cs: the columns
-// of a column pass's strip, rs: the rows of the row pass's (16, 8 or 4).
+// of a column pass's strip, rs: the rows of the row pass's (16, 8, 4 or
+// 2; `with_long_strip`).
 template <class Load>
 cudaError_t boot_split(const float2* s1, Load load, int rows, int n, int n1,
                        int cs, int rs, float eps, const float2* tw,
@@ -1154,17 +1240,17 @@ cudaError_t boot_split(const float2* s1, Load load, int rows, int n, int n1,
     return cudaGetLastError();
   }
   const int n2 = n / n1;
-  err = with_split_strip(cs, [&](auto strip) {
-    return cols_launch<decltype(strip)::value>(load, packed, n1, n2, tw, buf,
-                                               s);
+  err = with_long_strip(cs, n2, [&](auto strip, auto hi) {
+    return cols_launch<decltype(strip)::value, decltype(hi)::value>(
+        load, packed, n1, n2, tw, buf, s);
   });
   if (err != cudaSuccess) return err;
-  err = with_split_strip(rs, [&](auto strip) {
-    return boot_rows_launch<decltype(strip)::value>(s1, rows, n1, n2, eps, tw,
-                                                    buf, out, s);
+  err = with_long_strip<2>(rs, n2, [&](auto strip, auto hi) {
+    return boot_rows_launch<decltype(strip)::value, decltype(hi)::value>(
+        s1, rows, n1, n2, eps, tw, buf, out, s);
   });
   if (err != cudaSuccess) return err;
-  return with_split_strip(cs, [&](auto strip) {
+  return with_long_strip(cs, n2, [&](auto strip, auto) {
     constexpr int S = decltype(strip)::value;
     const cudaError_t e = palt::allow_smem<boot_cols<S>>();
     if (e != cudaSuccess) return e;
@@ -1219,7 +1305,7 @@ __global__ void last_pass_max(const float2* __restrict__ in,
   }
 }
 
-// ---- K6 above 2^24: the draws in the first radix-2 pass -----------------
+// ---- K6 above 2^26: the draws in the first radix-2 pass -----------------
 
 // The first forward Stockham pass (p = 1, twiddle 1: y[2i] = x[i] +
 // x[i + n/2], y[2i + 1] = their difference) over packed row c = draws 2c
@@ -2977,7 +3063,7 @@ void window_stage(const float2* spec, int scenes, int mics,
                                                 1.0f / (float)n, win, stats);
 }
 
-// K6's pipeline (and K4b's above 2^24) on the radix-2 passes, after buf0
+// K6's pipeline (and K4b's above 2^26) on the radix-2 passes, after buf0
 // holds the rows (packed two to a complex row) with their first `done`
 // forward passes applied: the other
 // forward passes, whitening against s1 in place, the packed inverse with
@@ -3008,12 +3094,12 @@ void boot_stage(const float2* s1, int rows, int n, float eps, int done,
 extern "C" {
 
 // K4a: x (rows, len) -> out (rows, n/2+1) complex, natural order.  n1 = 1:
-// one block per packed row (n <= 4096); n1 = 0 (n > 2^24): the packed
+// one block per packed row (n <= 4096); n1 = 0 (n > 2^26): the packed
 // rows, log2(n) radix-2 passes through buf's two halves of ceil(rows/2)
 // rows each, and `split_spectra`; else the two passes of the four-step
 // split n = n1 * n2 through buf (ceil(rows/2), n) complex (n1 < n2 above
-// 2^22), pass 1 with strips of cs (16, 8 or 4) columns, pass 2 with
-// strips of s2 (4, 8, 16, 32 or 64) rows.
+// 2^22), pass 1 with strips of cs (16, 8, 4 or 2) columns, pass 2 with
+// strips of s2 (2, 4, 8, 16, 32 or 64) rows.
 int palt_fft_real(const float* x, int rows, int len, int n, int n1, int cs,
                   int s2, const float2* tw, float2* buf, float2* out,
                   void* stream) {
@@ -3035,9 +3121,9 @@ int palt_fft_real(const float* x, int rows, int len, int n, int n1, int cs,
     return (int)fft_real_block_launch(RowLoad{x, rows, len}, rows, n, tw, out,
                                       s);
   const int n2 = n / n1;
-  const cudaError_t err = with_split_strip(cs, [&](auto strip) {
-    return cols_launch<decltype(strip)::value>(RowLoad{x, rows, len}, packed,
-                                               n1, n2, tw, buf, s);
+  const cudaError_t err = with_long_strip(cs, n2, [&](auto strip, auto hi) {
+    return cols_launch<decltype(strip)::value, decltype(hi)::value>(
+        RowLoad{x, rows, len}, packed, n1, n2, tw, buf, s);
   });
   if (err != cudaSuccess) return (int)err;
   return fft_real_rows_launch(buf, rows, n1, n2, s2, tw, out, s);
@@ -3150,10 +3236,10 @@ int palt_gcc_windowed(const float* x, int scenes, int mics, int len, int n,
 // K4b: s1 (n/2+1) complex, rows x (rows, len) -> out (rows,) maxima of the
 // PHAT correlations between s1's signal and each row.  n1 = 1: one block
 // per packed row (n <= 4096), no buffer; n1 = 0: the radix-2 passes (n >
-// 2^24) through buf's two halves of ceil(rows/2) rows each; else the three
+// 2^26) through buf's two halves of ceil(rows/2) rows each; else the three
 // launches of the split n = n1 * n2 through buf (ceil(rows/2), n) in
 // place, the column passes with strips of cs columns and the row pass
-// with strips of rs rows (16, 8 or 4 each).
+// with strips of rs rows (16, 8, 4 or 2 each).
 int palt_bootstrap_peaks(const float2* s1, const float* x, int rows, int len,
                          int n, int n1, int cs, int rs, float eps,
                          const float2* tw, float2* buf, float* out,

@@ -18,11 +18,12 @@ delay_sum             bfly_delay_sum (:1851)                 memory: 1 to 8*
 whiten                pallas_kernels.phat_whiten_planes (:34) memory: 16 B/bin
 ===================== ====================================== ==================
 
-(*) Above 2^24 points every transforming kernel runs the radix-2 passes
-(K4a: the packing, log2(nfft) passes and the split into the two spectra,
-2 + log2(nfft) launches).  K1, K2 and K5's GCC take one route a shape
-(``gcc_route``): 1 launch in one block a scene, 3 with ``gcc_rows``, 4
-through the mic rows' spectra on the split, 2 through them in one block.
+(*) Above 2^24 points K9, K1, K2, K3 and K5 run the radix-2 passes, K4a,
+K4b and K6 above 2^26 (K4a: the packing, log2(nfft) passes and the split
+into the two spectra, 2 + log2(nfft) launches).  K1, K2 and K5's GCC
+take one route a shape (``gcc_route``): 1 launch in one block a scene,
+3 with ``gcc_rows``, 4 through the mic rows' spectra on the split, 2
+through them in one block.
 K3's render and K5's render stage take one route a length
 (``render_route``): 1 launch in one block, 3 with ``render_rows``, 4
 through the base rows' spectra, then the finish: 1 launch, a block a mic
@@ -46,10 +47,12 @@ middle launch holding rows for both directions; K9, whose input is
 spectra, in two; the GCCs' spectra route K4a's two, then K9's two with a
 pair-indexed loader, and the render's K4a's two into the base rows'
 spectra, then a mix row pass and the column pass; up to 2^24 for all of
-them, whose strips narrow to 8 at 2,048 and to 4 at 4,096,
-``split_strips``; ``split_plan`` gives each launch of K4a's, K4b's and
-K6's, ``spectra_plan`` each of the spectra routes', with the row strips'
-bank-spread stride), so a transform reads
+them and to 2^26 for K4a, K4b and K6, whose strips narrow to 8 at 2,048,
+to 4 at 4,096 and to 2 at 8,192, ``split_strips``, and whose column and
+row passes read the n2-point table from device memory at 8,192
+(``split_hi_points``); ``split_plan`` gives each launch of K4a's, K4b's
+and K6's, ``spectra_plan`` each of the spectra routes', with the row
+strips' bank-spread stride), so a transform reads
 and writes each point once per launch (16 bytes a complex point) and is
 bound by device memory at that.  Up to 4,096 points the bootstraps, K9,
 the render (a packed base row a block) and the all-pairs and windowed
@@ -59,7 +62,7 @@ K3 is one launch there, K2 one or two and K5 two or three.  The others
 run radix-2 Stockham passes over rows in device memory, one launch and
 16 bytes a point per pass, about 16·log2(nfft) bytes per point and
 transform, and fuse their first or last pass into a prologue or
-epilogue: everything above 2^24.
+epilogue: K9, K1, K2, K3 and K5 above 2^24, K4a, K4b and K6 above 2^26.
 The design keeps the rest of the work out of device memory where the TPU
 kernels did: real rows are packed two to a complex transform, the whitening /
 ramp synthesis runs in one pass over the spectra, two real results share
@@ -106,25 +109,30 @@ from . import signal as sig_ops
 PHAT_EPS = 1e-10
 # K4a: one block holds the packed row up to FFT_REAL_ONE_BLOCK; the
 # four-step split of two on-chip transforms reaches 4096 x 4096
-# (FFT_SPLIT_MAX) for every transforming kernel (K4a, K4b and K6, and the
-# spectra routes of K9, K1, K2, K3 and K5), with strips of 8 at 2,048 and
-# of 4 at 4,096 (``split_strips``); the split's long side is its columns
-# (n1 >= n2) up to SPLIT_COLS_LONG_MAX and its contiguous rows above
-# (``fft_real_split``); the row passes that hold more than one strip reach
-# 1024 x 1024 (STAGE_SPLIT_MAX): the GCCs' ``gcc_rows`` route and the
-# render's ``render_rows``, whose two strips fit to 2^19; elsewhere the
+# (SPECTRA_SPLIT_MAX, 2^24) for the spectra routes of K9, K1, K2, K3 and
+# K5 and 8192 x 8192 (FFT_SPLIT_MAX, 2^26) for K4a, K4b and K6, with
+# strips of 8 at 2,048, of 4 at 4,096 and of 2 at 8,192
+# (``split_strips``); where n2 passes SPLIT_HI_SHARED_MAX (2^25, 2^26) the
+# split kernels read the n2-point table from device memory instead of
+# shared memory (``split_hi_points``); the split's long side is its
+# columns (n1 >= n2) up to SPLIT_COLS_LONG_MAX and its contiguous rows
+# above (``fft_real_split``); the row passes that hold more than one strip
+# reach 1024 x 1024 (STAGE_SPLIT_MAX): the GCCs' ``gcc_rows`` route and
+# the render's ``render_rows``, whose two strips fit to 2^19; elsewhere the
 # GCCs go through their mic rows' spectra (``gcc_route``) and the render
 # through its base rows' (``render_route``).
 FFT_REAL_ONE_BLOCK = 4096
 SPLIT_COLS_LONG_MAX = 1 << 22
-FFT_SPLIT_MAX = 1 << 24
+SPECTRA_SPLIT_MAX = 1 << 24
+FFT_SPLIT_MAX = 1 << 26
+SPLIT_HI_SHARED_MAX = 4096
 STAGE_SPLIT_MAX = 1 << 20
 # Rows a split row pass holds (kStrip, csrc/fft.cuh), the strips the
-# split may take, widest first (4 only above 2^22), the
+# split may take, widest first (4 only above 2^22, 2 only above 2^24), the
 # points one block's strip transform holds (kElems * 1024, ``block_fft``)
 # and the shared memory one block may opt in to on an H100 (227 KB).
 ROW_STRIP = 16
-SPLIT_STRIPS = (16, 8, 4)
+SPLIT_STRIPS = (16, 8, 4, 2)
 BLOCK_POINTS = 16 * 1024
 SMEM_OPTIN = 232448
 # The spread finish (``finish_groups``): an H100's SMs, the blocks of
@@ -151,7 +159,7 @@ _MAX_GRID_Y = 65535
 ROW_CHUNK = 2 * _MAX_GRID_Y
 # The scratch one launch of K4a, K4b or K6 may take (``_launch_rows``):
 # 1,000 rows at 2^22 on the split (16.8 GB) keep one launch; 512 rows a
-# launch at 2^23 and 256 at 2^24.
+# launch at 2^23, 256 at 2^24, 128 at 2^25 and 64 at 2^26.
 SPLIT_SCRATCH_BYTES = 16 << 30
 _lib: Optional[ctypes.CDLL] = None
 
@@ -247,22 +255,28 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
+def _twiddle_lengths(nfft: int):
+    """The lengths L whose half tables ``_twiddles`` holds at nfft, in
+    order: nfft, then on the split above 2^20 (``STAGE_SPLIT_MAX`` < nfft
+    <= ``FFT_SPLIT_MAX``) its n1 and n2 (``fft_real_split``)."""
+    if STAGE_SPLIT_MAX < nfft <= FFT_SPLIT_MAX:
+        return [nfft] + list(fft_real_split(nfft))
+    return [nfft]
+
+
 @functools.lru_cache(maxsize=8)
 def _twiddles(nfft: int, device: str) -> torch.Tensor:
     """exp(-2*pi*i*m/nfft), m < nfft/2, made in float64 and rounded once to
     float32, as a (nfft/2, 2) tensor; the exact zero of cos at m = nfft/4
-    is kept exact.  On K4a's split above 2^20 (``STAGE_SPLIT_MAX`` < nfft
-    <= ``FFT_SPLIT_MAX``) the half tables of n1 and n2
-    (``fft_real_split``) follow, made the same way: entry q of the L-point
-    table is entry q * nfft / L of the first, bit for bit (the angles
-    differ by powers of two), read contiguously by K4a's, K4b's and K6's
-    split kernels (``stage_split_twiddles`` and ``stage_split_tables_of``
-    in ``csrc/kernels.cu``)."""
-    lengths = [nfft]
-    if STAGE_SPLIT_MAX < nfft <= FFT_SPLIT_MAX:
-        lengths += list(fft_real_split(nfft))
+    is kept exact.  On the split above 2^20 the half tables of n1 and n2
+    follow (``_twiddle_lengths``), made the same way: entry q of the
+    L-point table is entry q * nfft / L of the first, bit for bit (the
+    angles differ by powers of two), read contiguously by the split
+    kernels (``stage_split_twiddles`` and ``stage_split_tables_of`` in
+    ``csrc/kernels.cu``; the n2-point one through the read-only path
+    where n2 passes ``SPLIT_HI_SHARED_MAX``, ``HiTable``)."""
     parts = []
-    for n in lengths:
+    for n in _twiddle_lengths(nfft):
         ang = -2.0 * np.pi * np.arange(n // 2) / n
         tw = np.stack([np.cos(ang), np.sin(ang)], -1)
         tw[np.abs(tw) < 1e-12] = 0.0
@@ -359,7 +373,7 @@ def _launch_rows(n1: int, nfft: int) -> int:
 def _split_n1(nfft: int) -> int:
     """n1 of K4a's, K4b's and K6's schedule at nfft: 1, one block, up to
     ``FFT_REAL_ONE_BLOCK``; the four-step split of ``fft_real_split`` up to
-    ``FFT_SPLIT_MAX`` (2^24); 0, the radix-2 passes, above."""
+    ``FFT_SPLIT_MAX`` (2^26); 0, the radix-2 passes, above."""
     return fft_real_split(nfft)[0] if nfft <= FFT_SPLIT_MAX else 0
 
 
@@ -410,9 +424,11 @@ def fft_real_split(nfft: int):
     2^22, where the strips narrow to 8 (``split_strips``); above, the long
     side goes to the contiguous rows, n1 = 2^floor(log2(nfft) / 2) <= n2:
     2048 x 4096 at 2^23 (column strips of 8 still read 64 bytes a row, row
-    strips of 4) and 4096 x 4096 at ``FFT_SPLIT_MAX`` (2^24, strips of
-    4).  ``SPLIT_COLS_LONG_MAX`` picks only that orientation: every kernel
-    runs the split up to ``FFT_SPLIT_MAX``."""
+    strips of 4), 4096 x 4096 at 2^24 (``SPECTRA_SPLIT_MAX``, strips of
+    4), 4096 x 8192 at 2^25 (4 columns, 2 rows) and 8192 x 8192 at
+    ``FFT_SPLIT_MAX`` (2^26, strips of 2).  ``SPLIT_COLS_LONG_MAX`` picks
+    only that orientation: K4a, K4b and K6 run the split up to
+    ``FFT_SPLIT_MAX``, the spectra routes up to ``SPECTRA_SPLIT_MAX``."""
     if nfft <= FFT_REAL_ONE_BLOCK:
         return 1, nfft
     short = 1 << ((nfft.bit_length() - 1) // 2)
@@ -427,8 +443,9 @@ def fft_real_rows_strip(n2: int, packed: int) -> int:
     as long.  64 (n2 <= 256) or 32 (n2 <= 512), the most one block's shared
     memory holds, where there are enough packed rows (>= 64) that fewer
     blocks still fill the card; where 16 rows would pass ``BLOCK_POINTS``
-    the most it holds, 8 at n2 = 2,048 (2^22) and 4 at 4,096 (2^23, 2^24);
-    else 16 (a single row's call is bound by latency, not bytes)."""
+    the most it holds, 8 at n2 = 2,048 (2^22), 4 at 4,096 (2^23, 2^24) and
+    2 at 8,192 (2^25, 2^26: one row k1 and its partner); else 16 (a single
+    row's call is bound by latency, not bytes)."""
     if n2 * ROW_STRIP > BLOCK_POINTS:
         return BLOCK_POINTS // n2
     if packed < 64 or n2 > 512:
@@ -436,39 +453,53 @@ def fft_real_rows_strip(n2: int, packed: int) -> int:
     return 64 if n2 <= 256 else 32
 
 
+def split_hi_points(n2: int) -> int:
+    """Points of the split's n2-point table ``hi`` that a split kernel of
+    K4a, K4b or K6 stages in shared memory: n2 up to
+    ``SPLIT_HI_SHARED_MAX`` (4,096: every shape up to 2^24), else none
+    (2^25, 2^26: ``fft_real_cols`` and ``boot_rows`` read it from the
+    contiguous n2-point half table of ``_twiddles`` in device memory)."""
+    return n2 if n2 <= SPLIT_HI_SHARED_MAX else 0
+
+
 def _row_pass_smem(n1: int, n2: int, strips: int,
-                   strip: int = ROW_STRIP) -> int:
+                   strip: int = ROW_STRIP, hi: Optional[int] = None) -> int:
     """Bytes of shared memory of a split row pass (``render_rows``,
     ``gcc_rows``, ``boot_rows``) that holds ``strips`` strips of ``strip``
     rows of n2 points (sequence stride n2 + 1) and the twiddle tables (n2/2
-    + n1 + n2 complex)."""
-    return 8 * (n2 // 2 + n1 + n2 + strips * strip * (n2 + 1))
+    + n1 + ``hi`` complex; ``hi`` = n2 by default)."""
+    hi = n2 if hi is None else hi
+    return 8 * (n2 // 2 + n1 + hi + strips * strip * (n2 + 1))
 
 
 def split_strips(n1: int, n2: int):
     """(columns a strip of a column pass holds, rows a strip of the row
     pass holds) on the split n1 x n2 (K4a's, K4b's, K6's and the spectra
     routes'): for each, the
-    widest of ``SPLIT_STRIPS`` (16, 8, 4) whose strip holds at most
+    widest of ``SPLIT_STRIPS`` (16, 8, 4, 2) whose strip holds at most
     ``BLOCK_POINTS`` points (``block_fft``'s kElems x 1024) and whose pass
     fits one block's shared memory (``SMEM_OPTIN``): the column pass's
-    n1/2 sub-twiddles, n1 + n2 split tables and n1 x S strip
-    (``fft_real_cols``; ``boot_cols`` holds less), and ``_row_pass_smem``
-    of one strip (``boot_rows``; K4a's own row pass takes
-    ``fft_real_rows_strip``).  (16, 16) up to 1024 x 1024, so every
-    shape up to 2^20 keeps its strips; (8, 16) at 2048 x 1024 (2^21) and
-    (8, 8) at 2048 x 2048 (2^22): 164-172 KB a block; (8, 4) at 2048 x
-    4096 (2^23: 188,416 and 196,640 bytes) and (4, 4) at 4096 x 4096
-    (2^24: 212,992 and 213,024), whose column strips read one 32-byte
-    sector a row."""
+    n1/2 sub-twiddles, n1 + ``split_hi_points`` split tables and n1 x S
+    strip (``fft_real_cols``; ``boot_cols`` holds less), and
+    ``_row_pass_smem`` of one strip with those tables (``boot_rows``;
+    K4a's own row pass takes ``fft_real_rows_strip``).  (16, 16) up to
+    1024 x 1024, so every shape up to 2^20 keeps its strips; (8, 16) at
+    2048 x 1024 (2^21) and (8, 8) at 2048 x 2048 (2^22): 164-172 KB a
+    block; (8, 4) at 2048 x 4096 (2^23: 188,416 and 196,640 bytes) and
+    (4, 4) at 4096 x 4096 (2^24: 212,992 and 213,024), whose column
+    strips read one 32-byte sector a row; without the n2-point table in
+    shared memory (4, 2) at 4096 x 8192 (2^25: 180,224 and 196,624) and
+    (2, 2) at 8192 x 8192 (2^26: 229,376 and 229,392): with it neither
+    fits (245,760 and 262,160 bytes at 2^25)."""
     def widest(length, smem):
         for strip in SPLIT_STRIPS:
             if length * strip <= BLOCK_POINTS and smem(strip) <= SMEM_OPTIN:
                 return strip
         raise ValueError(f"no strip of {SPLIT_STRIPS} fits the split "
                          f"{n1} x {n2}")
-    return (widest(n1, lambda s: 8 * (n1 // 2 + n1 + n2 + n1 * s)),
-            widest(n2, lambda s: _row_pass_smem(n1, n2, 1, s)))
+    hi = split_hi_points(n2)
+    return (widest(n1, lambda s: 8 * (n1 // 2 + n1 + hi + n1 * s)),
+            widest(n2, lambda s: _row_pass_smem(n1, n2, 1, s, hi)))
 
 
 class SplitPass(NamedTuple):
@@ -509,16 +540,21 @@ def split_plan(nfft: int, packed: int = 1) -> SplitPlan:
     points in at most ``SMEM_OPTIN`` bytes, and no launch takes a
     thread-block cluster: clusters that read whole sectors of each row
     measured 30-40 % slower on an H100 (PERF.md).  K4b's and K6's row pass
-    runs 512 threads a block above 2^20 (``boot_rows_launch``)."""
+    runs 512 threads a block above 2^20 (``boot_rows_launch``).  At 2^25
+    and 2^26 (n2 = 8,192) the column pass and the row pass hold no
+    n2-point table (``split_hi_points``): 180,224 / 229,376 bytes for the
+    column pass, 163,968 for K4a's pass 2, 196,736 / 229,504 for
+    ``boot_rows`` and 147,584 / 163,968 for ``boot_cols``."""
     n1, n2 = fft_real_split(nfft)
     if n1 == 1 or nfft > FFT_SPLIT_MAX:
         raise ValueError(f"split_plan: nfft {nfft} is not on the split")
     cs, rs = split_strips(n1, n2)
     s2 = fft_real_rows_strip(n2, packed)
+    hi = split_hi_points(n2)
     return SplitPlan(
-        SplitPass(cs, 8 * (n1 // 2 + n1 + n2 + n1 * cs)),
+        SplitPass(cs, 8 * (n1 // 2 + n1 + hi + n1 * cs)),
         SplitPass(s2, 8 * (n2 // 2 + s2 * row_ld(s2, n2))),
-        SplitPass(rs, 8 * (n2 // 2 + n1 + n2 + rs * row_ld(rs, n2))),
+        SplitPass(rs, 8 * (n2 // 2 + n1 + hi + rs * row_ld(rs, n2))),
         SplitPass(cs, 8 * (n1 // 2 + n1 * cs) + 128))
 
 
@@ -538,7 +574,8 @@ class SpectraPlan(NamedTuple):
 
 def spectra_plan(nfft: int, packed: int = 1) -> SpectraPlan:
     """Each launch of the spectra routes at nfft (8,192 to
-    ``FFT_SPLIT_MAX``) for ``packed`` packed rows in K4a's passes: K4a's
+    ``SPECTRA_SPLIT_MAX``, 2^24) for ``packed`` packed rows in K4a's
+    passes: K4a's
     two (``split_plan``'s ``cols`` and ``rows``); the row pass, one strip
     of ``split_strips``' rows at the bank-spread stride ``row_ld`` with
     the n1- and n2-point tables (n2/2 + n1 + n2 complex, the bytes of
@@ -547,7 +584,11 @@ def spectra_plan(nfft: int, packed: int = 1) -> SpectraPlan:
     2^20 these kernels read their tables from the contiguous copies of
     ``_twiddles``; the row pass keeps ``fft_threads`` = 1,024 threads a
     block there (512 of twice the points, as ``boot_rows``, measured 3-12
-    % slower on an H100; PERF.md)."""
+    % slower on an H100; PERF.md).  Their kernels hold both tables in
+    shared memory, so they stop at 2^24, where K4a's own split goes on."""
+    if nfft > SPECTRA_SPLIT_MAX:
+        raise ValueError(f"spectra_plan: nfft {nfft} is past the spectra "
+                         f"routes' split (2^24)")
     plan = split_plan(nfft, packed)
     n1, n2 = fft_real_split(nfft)
     cs = plan.cols.strip
@@ -593,7 +634,7 @@ def gcc_route(nfft: int, mics: int) -> GccRoute:
       each packed mic row a scene's mics can span ((mics + 1) // 2) and
       one for the output, fit one block's shared memory (``SMEM_OPTIN``);
       never at 2^20, where two strips of 16 x 1,025 points pass it;
-    - elsewhere up to ``FFT_SPLIT_MAX`` (2^24), the split through the mic
+    - elsewhere up to ``SPECTRA_SPLIT_MAX`` (2^24), the split through the mic
       rows' spectra at any mic count (K4a's two passes, ``corr_rows`` with
       the pair-indexed loader, ``corr_cols`` or ``window_cols``), with the
       strips of ``spectra_plan``: 16 and 16 up to 2^20, 8 columns from n1
@@ -604,7 +645,7 @@ def gcc_route(nfft: int, mics: int) -> GccRoute:
         if _gcc_block_smem(nfft, mics) <= SMEM_OPTIN:
             return GccRoute(ROUTE_BLOCK, 1, 0, 0)
         return GccRoute(ROUTE_SPECTRA_BLOCK, 1, 0, 0)
-    if nfft > FFT_SPLIT_MAX:
+    if nfft > SPECTRA_SPLIT_MAX:
         return GccRoute(ROUTE_PASSES, 0, 0, 0)
     n1, n2 = fft_real_split(nfft)
     if (nfft <= STAGE_SPLIT_MAX
@@ -632,7 +673,7 @@ def render_route(nfft: int) -> GccRoute:
       row's) fit one block's shared memory (``SMEM_OPTIN``: to 2^19),
       the four-step split nfft = n1 * n2 of ``fft_real_split`` with
       ``render_rows`` (``ROUTE_ROWS``);
-    - elsewhere up to ``FFT_SPLIT_MAX`` (2^24), the split through the base
+    - elsewhere up to ``SPECTRA_SPLIT_MAX`` (2^24), the split through the base
       rows' spectra (``ROUTE_SPECTRA``): K4a's two passes, the one-strip
       mix row pass ``render_spec_rows`` and ``render_cols``, with the
       strips of ``spectra_plan`` (16 and 16 at 2^20, 8 columns from n1 =
@@ -644,7 +685,7 @@ def render_route(nfft: int) -> GccRoute:
     strips at any mic count."""
     if nfft <= FFT_REAL_ONE_BLOCK:
         return GccRoute(ROUTE_BLOCK, 1, 0, 0)
-    if nfft > FFT_SPLIT_MAX:
+    if nfft > SPECTRA_SPLIT_MAX:
         return GccRoute(ROUTE_PASSES, 0, 0, 0)
     n1, n2 = fft_real_split(nfft)
     if _row_pass_smem(n1, n2, 2) <= SMEM_OPTIN:
@@ -675,14 +716,15 @@ def finish_groups(nfft: int, rows: int) -> int:
 
 
 def corr_schedule(nfft: int) -> int:
-    """n1 of K9's schedule at nfft, K4a's (``_split_n1``): 1, one block a
-    packed row (``corr_block``), up to ``FFT_REAL_ONE_BLOCK``; the
-    four-step split of ``fft_real_split`` up to ``FFT_SPLIT_MAX`` (2^24;
+    """n1 of K9's schedule at nfft, K4a's (``_split_n1``) up to the spectra
+    routes' limit: 1, one block a packed row (``corr_block``), up to
+    ``FFT_REAL_ONE_BLOCK``; the four-step split of ``fft_real_split`` up
+    to ``SPECTRA_SPLIT_MAX`` (2^24;
     the spectra routes' last two launches, ``spectra_plan``: its row pass
     holds one strip, of 16 rows, 8 at n2 = 2,048 or 4 at 4,096, and its
     column pass strips of 16 columns, 8 at n1 = 2,048 or 4 at 4,096); 0,
     the radix-2 passes, above."""
-    return _split_n1(nfft)
+    return _split_n1(nfft) if nfft <= SPECTRA_SPLIT_MAX else 0
 
 
 def _copies(n1: int) -> int:
@@ -762,12 +804,12 @@ def fft_real(x: torch.Tensor, nfft: int) -> torch.Tensor:
     Replaces ``bfly_fft_real`` (pyaudiolocalization_tpu/ops/pallas_fft.py:
     685), whose output is an opaque bit-reversed (N2, 128) plane layout.
     Two rows share each complex transform.  By length (``_split_n1``): up
-    to nfft = 4096 one launch, a block per packed row; up to 2^24 a
+    to nfft = 4096 one launch, a block per packed row; up to 2^26 a
     four-step split (``fft_real_split``) of two on-chip launches, the
     columns' DFTs with the twiddle (strips of 16 columns, 8 at n1 = 2,048,
-    4 at 4,096: ``split_strips``), then the rows' DFTs with the two real
-    spectra split in the epilogue (``fft_real_rows_strip``; the launches
-    as ``split_plan`` gives them); above, the
+    4 at 4,096, 2 at 8,192: ``split_strips``), then the rows' DFTs with
+    the two real spectra split in the epilogue (``fft_real_rows_strip``;
+    the launches as ``split_plan`` gives them); above, the
     packed rows, the log2(nfft) radix-2 passes through device memory (one
     launch a pass) and the split into the two spectra.  Bound by device
     memory: the rows' read, one write and one read of the packed
@@ -831,7 +873,7 @@ def whitened_corr(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
     row (bins 0..n/2, mirrored, real DC and Nyquist), the packed inverse,
     1/n and the split into the two rows.  By length (``corr_schedule``):
     up to ``FFT_REAL_ONE_BLOCK`` (4,096) one launch, a block per packed row
-    holding it in shared memory, no scratch; up to ``FFT_SPLIT_MAX`` (2^24)
+    holding it in shared memory, no scratch; up to ``SPECTRA_SPLIT_MAX`` (2^24)
     two launches over one scratch buffer on K4b's four-step split — a row
     pass that gathers each strip's bins of ``a`` and ``b``, whitens and
     runs the inverse row DFTs, and K1's column pass, whose inverse column
@@ -931,7 +973,7 @@ def gcc_all_pairs(signals: torch.Tensor, pairs_i: Sequence[int],
       row; per couple the cross-spectra and the inverse row DFTs), and a
       column pass whose inverse column DFTs write the correlations in
       natural order;
-    - the spectra (8,192 to ``FFT_SPLIT_MAX``, 2^24, where ``gcc_rows``
+    - the spectra (8,192 to ``SPECTRA_SPLIT_MAX``, 2^24, where ``gcc_rows``
       does not fit, at any mic count; every mic count from 2^20 on): four
       launches — K4a's two passes write the mic rows' natural-order
       spectra (scenes * M, nfft/2 + 1), K9's row pass reads rows scene * M
@@ -1133,15 +1175,15 @@ def bootstrap_peaks(s1: torch.Tensor, rows: torch.Tensor, nfft: int,
 
     - nfft <= ``FFT_REAL_ONE_BLOCK`` (4096): one launch, a block per
       packed row holding every step in shared memory, no scratch;
-    - up to ``FFT_SPLIT_MAX`` (2^24): three launches over one scratch
+    - up to ``FFT_SPLIT_MAX`` (2^26): three launches over one scratch
       buffer, K4a's split nfft = n1 * n2 (``fft_real_split``) forward and
       back: K4a's column pass; a row pass (16 rows a block, 8 at n2 =
-      2,048, 4 at 4,096) that runs the forward row DFTs, the whitening, the
-      inverse row DFTs and the inverse twiddle in shared memory and writes
-      back in place; and a column pass whose inverse column DFTs end in
-      the maxima (the column passes' strips 16 columns, 8 at n1 = 2,048,
-      4 at 4,096: ``split_strips``; the row pass in 512 threads from
-      2^21);
+      2,048, 4 at 4,096, 2 at 8,192) that runs the forward row DFTs, the
+      whitening, the inverse row DFTs and the inverse twiddle in shared
+      memory and writes back in place; and a column pass whose inverse
+      column DFTs end in the maxima (the column passes' strips 16
+      columns, 8 at n1 = 2,048, 4 at 4,096, 2 at 8,192:
+      ``split_strips``; the row pass in 512 threads from 2^21);
     - above: the radix-2 passes through device memory (one launch a
       pass), ping-ponging in a scratch buffer of twice the packed rows.
 
@@ -1149,7 +1191,8 @@ def bootstrap_peaks(s1: torch.Tensor, rows: torch.Tensor, nfft: int,
     and two writes of the packed buffer (32 bytes a point of the packed
     rows).  A batch beyond ``_launch_rows`` rows (``ROW_CHUNK``, or as
     many as keep the scratch within ``SPLIT_SCRATCH_BYTES``: 512 rows at
-    2^23, 256 at 2^24) launches in chunks, with one launch's peaks."""
+    2^23, 256 at 2^24, 128 at 2^25, 64 at 2^26) launches in chunks, with
+    one launch's peaks."""
     if _use_plain(s1, rows):
         return bootstrap_peaks_plain(s1, rows, nfft, eps)
     _check_contiguous("bootstrap_peaks", s1, rows)
@@ -1199,7 +1242,7 @@ def noise_bootstrap_peaks(s1: torch.Tensor, seeds: torch.Tensor,
 
     Replaces ``bfly_noise_bootstrap_peaks`` (pyaudiolocalization_tpu/ops/
     pallas_fft.py:1326): K4b's schedules (``bootstrap_peaks``: one launch
-    up to 4096, three on the four-step split up to 2^24 with K4b's strips,
+    up to 4096, three on the four-step split up to 2^26 with K4b's strips,
     the radix-2 passes above) with its row load replaced by the draw, made
     where the first forward step reads the point (two draws per complex
     transform), so the rows never exist in device memory and no

@@ -1,8 +1,8 @@
 """The CUDA kernels against their plain PyTorch twins on the card above
-2^20 points: the split of every transforming kernel to 2^24 and the
-radix-2 passes above (K4a's, K4b's, K6's and K9's at 2^25), K9's, K1's,
-K2's, K3's and K5's shapes from 2^21 to 2^24 through the spectra, and the
-device kernels a call runs there.
+2^20 points: the split of every transforming kernel to 2^24 and of K4a,
+K4b and K6 to 2^26, the radix-2 passes above (K9's at 2^25, K4a's, K4b's
+and K6's at 2^27), K9's, K1's, K2's, K3's and K5's shapes from 2^21 to
+2^24 through the spectra, and the device kernels a call runs there.
 
 A file of its own, run in its own process: in one process after these
 cases, late profiler traces in ``test_torch_cuda_kernels.py`` lost each
@@ -38,25 +38,29 @@ from test_torch_cuda_kernels import \
 from test_torch_cuda_kernels import \
     test_whitened_corr_kernel_matches_plain as _whitened_corr
 
-# K4a's, K4b's and K6's n1 above 2^20: the split to 2^24 (the long side in
+# K4a's, K4b's and K6's n1 above 2^20: the split to 2^26 (the long side in
 # the rows above 2^22), the radix-2 passes above.
 LONG_N1 = {1 << 21: 2048, 1 << 22: 2048, 1 << 23: 2048, 1 << 24: 4096,
-           1 << 25: 0}
+           1 << 25: 4096, 1 << 26: 8192, 1 << 27: 0}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,length,nfft", [
     (2, 1_046_019, 1 << 21), (3, 1_046_019, 1 << 21), (1, 2_000_000, 1 << 22),
-    (3, 4_000_000, 1 << 23), (1, 8_400_000, 1 << 24), (2, 600_000, 1 << 25)])
+    (3, 4_000_000, 1 << 23), (1, 8_400_000, 1 << 24), (2, 600_000, 1 << 25),
+    (1, 16_800_000, 1 << 25), (1, 33_000_000, 1 << 26),
+    (2, 600_000, 1 << 27)])
 def test_fft_real_runs_the_passes_above_2_20(cuda, rows, length, nfft):
     """Above 2^20 K4a runs the four-step split with strips of 8 columns
     (``split_strips``) at 2^21 (a 23.7 s recording at 44.1 kHz, the
     bootstrap's spectrum; 2,048 x 1,024) and 2^22 (2,048 x 2,048, pass 2's
     strips 8 rows), with the long side in the rows at 2^23 (2,048 x 4,096,
-    pass 2's strips 4 rows) and 2^24 (4,096 x 4,096, 4 columns, 4 rows),
-    and above its largest split (2^24) packs the rows, runs the radix-2
-    passes (one launch a pass) and splits the two spectra (2^25): each
-    against its twin, relative to the spectrum's peak."""
+    pass 2's strips 4 rows), 2^24 (4,096 x 4,096, 4 columns, 4 rows), 2^25
+    (4,096 x 8,192: 4 columns, 2 rows; a 380 s recording) and 2^26 (8,192 x
+    8,192: 2 and 2; 750 s), and above its largest split (2^26) packs the
+    rows, runs the radix-2 passes (one launch a pass) and splits the two
+    spectra (2^27): each against its twin, relative to the spectrum's
+    peak."""
     assert cf._split_n1(nfft) == LONG_N1[nfft]
     x = torch.randn((rows, length), generator=_gen(cuda), device=cuda)
     before = cf.LAUNCHES["fft_real"]
@@ -101,27 +105,32 @@ def test_bootstrap_significance_at_2_21_on_the_card(cuda, mode):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,length,nfft", [
     (3, 100000, 1 << 21), (64, 1_046_019, 1 << 21), (3, 2_000_000, 1 << 22),
-    (3, 100000, 1 << 23), (3, 100000, 1 << 24), (3, 100000, 1 << 25)])
+    (3, 100000, 1 << 23), (3, 100000, 1 << 24), (3, 100000, 1 << 25),
+    (3, 16_800_000, 1 << 25), (3, 100000, 1 << 26), (3, 100000, 1 << 27)])
 def test_bootstrap_peaks_kernel_matches_plain(cuda, rows, length, nfft):
     """K4b above 2^20: at 2^21 strips of 8 columns, at 2^22 8 columns and
-    8 rows, at 2^23 8 columns and 4 rows of 4,096, at 2^24 4 and 4, and the
-    radix-2 passes above 2^24."""
+    8 rows, at 2^23 8 columns and 4 rows of 4,096, at 2^24 4 and 4, at 2^25
+    4 columns and 2 rows of 8,192 and at 2^26 2 and 2 (the n2-point table
+    in device memory), and the radix-2 passes above 2^26."""
     _bootstrap_peaks(cuda, rows, length, nfft)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,n_samp,nfft", [
     (3, 100000, 1 << 21), (3, 2_000_000, 1 << 22), (3, 100000, 1 << 23),
-    (3, 100000, 1 << 24), (3, 100000, 1 << 25)])
+    (3, 100000, 1 << 24), (3, 100000, 1 << 25), (3, 16_800_000, 1 << 25),
+    (3, 100000, 1 << 26), (3, 100000, 1 << 27)])
 def test_noise_bootstrap_peaks_kernel_matches_plain(cuda, rows, n_samp, nfft):
-    """K6 above 2^20 against its twin (the split to 2^24, the passes
+    """K6 above 2^20 against its twin (the split to 2^26, the passes
     above)."""
     _noise_peaks(cuda, rows, n_samp, nfft)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,n_samp,nfft", [(3, 100000, 1 << 23),
-                                              (3, 100000, 1 << 24)])
+                                              (3, 100000, 1 << 24),
+                                              (3, 100000, 1 << 25),
+                                              (3, 100000, 1 << 26)])
 def test_noise_bootstrap_equals_bootstrap_on_its_draws(cuda, rows, n_samp,
                                                        nfft):
     """K6's peaks are K4b's element for element on the same draws, on the
@@ -229,9 +238,10 @@ def test_render_spectra_route_matches_plain(cuda, scenes, m, paths, total,
 def test_device_kernels_per_call_above_2_20(cuda, tmp_path):
     """The design, not just the answer, above 2^20: K4a runs its two
     kernels (two rows of a 23.7 s pair at 2^21, three at 2^22 and 2^23,
-    one at 2^24: strips of 8 columns, 4 at 2^24) and K4b and K6 their
-    three, not the radix-2 passes; K1 four from 2^21 to 2^24 (K4a's two
-    passes, K9's row pass, the column pass), K9 two there; K1 and K2 four
+    one at 2^24, 2^25 and 2^26: strips of 8 columns, 4 at 2^24 and 2^25, 2
+    at 2^26) and K4b and K6 their three, not the radix-2 passes; K1 four
+    from 2^21 to 2^24 (K4a's two passes, K9's row pass, the column pass),
+    K9 two there; K1 and K2 four
     at 2^21, 2^23 and 2^24 through the mic rows' spectra (``window_cols``
     last for K2); K3 eight with the finalize and the noise at 2^22, 2^23
     and 2^24 (K4a's two passes into the base rows' spectra,
@@ -243,7 +253,9 @@ def test_device_kernels_per_call_above_2_20(cuda, tmp_path):
     for rows, length, nfft in ((2, 1_046_019, 1 << 21),
                                (3, 2_000_000, 1 << 22),
                                (3, 4_200_000, 1 << 23),
-                               (1, 8_400_000, 1 << 24)):
+                               (1, 8_400_000, 1 << 24),
+                               (1, 16_800_000, 1 << 25),
+                               (1, 33_000_000, 1 << 26)):
         xl = torch.randn((rows, length), generator=_gen(cuda),
                          device=cuda)
         names = _device_kernels(lambda: cf.fft_real(xl, nfft),

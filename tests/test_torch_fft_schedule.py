@@ -550,7 +550,8 @@ def test_fft_real_split_choice(n):
         assert n1 % cf.fft_real_rows_strip(n2, 64) == 0
     assert cf.fft_real_split(cf.SPLIT_COLS_LONG_MAX) == (2048, 2048)
     assert cf.fft_real_split(2 * cf.SPLIT_COLS_LONG_MAX) == (2048, 4096)
-    assert cf.fft_real_split(cf.FFT_SPLIT_MAX) == (4096, 4096)
+    assert cf.fft_real_split(cf.SPECTRA_SPLIT_MAX) == (4096, 4096)
+    assert cf.fft_real_split(cf.FFT_SPLIT_MAX) == (8192, 8192)
 
 
 @pytest.mark.parametrize("n,strips,rows_strip", [
@@ -566,8 +567,9 @@ def test_split_strips_rule(n, strips, rows_strip):
     fits one block's shared memory (the kernels' byte counts); the next
     wider strip does not fit where a narrower one is taken;
     ``split_plan`` and ``spectra_plan`` give the same strips.  The split
-    reaches 2^24 for every transforming kernel (K9's schedule is K4a's),
-    its row passes of more than one strip 2^20 (``STAGE_SPLIT_MAX``)."""
+    reaches 2^24 for every transforming kernel (K9's schedule is K4a's
+    there) and 2^26 for K4a, K4b and K6, its row passes of more than one
+    strip 2^20 (``STAGE_SPLIT_MAX``)."""
     n1, n2 = cf.fft_real_split(n)
     assert cf.split_strips(n1, n2) == strips
     assert cf.fft_real_rows_strip(n2, 1) == rows_strip
@@ -592,7 +594,7 @@ def test_split_strips_rule(n, strips, rows_strip):
     assert cf._split_n1(2 * cf.FFT_SPLIT_MAX) == 0
     assert cf._split_strips(0, 2 * cf.FFT_SPLIT_MAX) == (0, 0)
     assert cf.STAGE_SPLIT_MAX == 1 << 20 and cf.SPLIT_COLS_LONG_MAX == 1 << 22
-    assert cf.FFT_SPLIT_MAX == 1 << 24
+    assert cf.SPECTRA_SPLIT_MAX == 1 << 24 and cf.FFT_SPLIT_MAX == 1 << 26
 
 
 @pytest.mark.parametrize("bits", range(13, 25))
@@ -645,8 +647,9 @@ def test_split_twiddle_tables(bits):
     assert np.array_equal(t1.view(np.int32), tab[:n // 2:n2].view(np.int32))
     assert np.array_equal(t2.view(np.int32), tab[:n // 2:n1].view(np.int32))
     assert cf._twiddles(4096, "cpu").shape == (2048, 2)
-    assert cf._twiddles(2 * cf.FFT_SPLIT_MAX, "cpu").shape == (
-        cf.FFT_SPLIT_MAX, 2)
+    # Past the split (2^27, a table of 2^26 entries: its lengths only).
+    assert cf._twiddle_lengths(2 * cf.FFT_SPLIT_MAX) == [
+        2 * cf.FFT_SPLIT_MAX]
 
 
 @pytest.mark.parametrize("n1,n2,strip", [(2048, 1024, 8), (2048, 2048, 8),
@@ -1297,7 +1300,7 @@ def test_scene_stages_rule(n, mics, want):
             assert cf._row_pass_smem(n1, n2, 1,
                                      render.rows) <= cf.SMEM_OPTIN
     else:
-        assert render.kind == cf.ROUTE_PASSES and n > cf.FFT_SPLIT_MAX
+        assert render.kind == cf.ROUTE_PASSES and n > cf.SPECTRA_SPLIT_MAX
     if route.kind == cf.ROUTE_ROWS:
         assert cf._row_pass_smem(got[1], n // got[1],
                                  (mics + 1) // 2 + 1) <= cf.SMEM_OPTIN
@@ -1909,8 +1912,10 @@ def test_corr_schedule_rule(n, want):
     """K9's schedule (``corr_schedule``): one block up to 4,096, K4a's
     split up to 2^24 (its row pass's one strip of ``spectra_plan`` fits at
     every split: 16 rows, 8 at n2 = 2,048, 4 at 4,096), the passes
-    above."""
-    assert cf.corr_schedule(n) == want == cf._split_n1(n)
+    above, where K4a's own split goes on to 2^26."""
+    assert cf.corr_schedule(n) == want
+    if n <= cf.SPECTRA_SPLIT_MAX:
+        assert want == cf._split_n1(n)
     if 1 < want:
         plan = cf.spectra_plan(n)
         rows = plan.spec_rows.strip

@@ -5,7 +5,8 @@ returns False), the kernel library is a stub, and every launch through
 outputs are left as allocated, so these tests read the launches only.
 
 They hold the split of all eight transforming kernels up to 2^24 (strips
-of 8 at 2,048, of 4 at 4,096) and their radix-2 passes above, the byte
+of 8 at 2,048, of 4 at 4,096) and of K4a, K4b and K6 up to 2^26 (strips of
+2 at 8,192), the radix-2 passes above each limit, the byte
 cap on the split's scratch (``_launch_rows``), the GCC routes of K1, K2
 and K5 (``gcc_route``: one block a scene, ``gcc_rows``, the mic rows'
 spectra on the split and in one block) on both sides of every fit limit
@@ -62,8 +63,16 @@ def _named(calls, name):
     return [args for n, args in calls if n == name]
 
 
+def _no_tables(monkeypatch):
+    """Stubs the twiddle table (``cuda_fft._twiddles``), which no launch
+    here reads: at 2^26 and 2^27 it is 2^25 to 2^26 entries, built in
+    float64."""
+    monkeypatch.setattr(cf, "_twiddles", lambda nfft, device: torch.empty(
+        (1, 2), device=device))
+
+
 # ---------------------------------------------------------------------------
-# K4a, K4b and K6 above 2^20: the split to 2^24, the passes above
+# K4a, K4b and K6 above 2^20: the split to 2^26, the passes above
 # ---------------------------------------------------------------------------
 
 def test_spectrum_above_2_20_launches_k4a_on_the_radix2_passes(launches):
@@ -97,13 +106,15 @@ def test_spectrum_at_2_23_and_2_24_launches_k4a_on_the_split(
     assert [n for n, _ in launches] == ["fft_real"]
 
 
-def test_spectrum_above_2_22_launches_k4a_on_the_radix2_passes(launches):
-    """At nfft 2^25, past K4a's largest split (``FFT_SPLIT_MAX``, 2^24),
+def test_spectrum_above_2_22_launches_k4a_on_the_radix2_passes(launches,
+                                                              monkeypatch):
+    """At nfft 2^27, past K4a's largest split (``FFT_SPLIT_MAX``, 2^26),
     K4a's launch takes the radix-2 passes (n1 = 0)."""
-    spec = ttdoa._spectrum(torch.zeros(600_000), 1 << 25)
-    assert spec.shape == ((1 << 24) + 1,)
+    _no_tables(monkeypatch)
+    spec = ttdoa._spectrum(torch.zeros(600_000), 1 << 27)
+    assert spec.shape == ((1 << 26) + 1,)
     (args,) = _named(launches, "fft_real")
-    assert args[1:5] == (1, 600_000, 1 << 25, 0)
+    assert args[1:5] == (1, 600_000, 1 << 27, 0)
 
 
 @pytest.mark.parametrize("mode,kernel", [("permutation", "bootstrap_peaks"),
@@ -153,32 +164,42 @@ def test_bootstrap_at_2_23_and_2_24_runs_both_nulls_on_the_split(
 
 @pytest.mark.parametrize("mode,kernel", [("permutation", "bootstrap_peaks"),
                                          ("noise", "noise_bootstrap_peaks")])
-def test_bootstrap_above_2_22_runs_both_nulls_on_the_passes(launches, mode,
-                                                            kernel):
-    """At nfft 2^25, past K4a's, K4b's and K6's largest split (2^24), both
+def test_bootstrap_above_2_22_runs_both_nulls_on_the_passes(
+        launches, monkeypatch, mode, kernel):
+    """At nfft 2^27, past K4a's, K4b's and K6's largest split (2^26), both
     nulls run K4a and K4b (or K6) on the radix-2 passes (n1 = 0), with
     twice the packed rows of scratch."""
+    _no_tables(monkeypatch)
     gen = torch.Generator().manual_seed(0)
     sig1 = torch.randn(600_000, generator=gen)
     sig2 = torch.randn(600_000, generator=gen)
+    scratch = []
+    stub = cf._scratch
+    monkeypatch.setattr(cf, "_scratch", lambda rows, nfft, device: (
+        scratch.append((rows, nfft)) or stub(rows, nfft, device)))
     ttdoa.bootstrap_significance(sig1, sig2, gen, num_bootstrap=4,
-                                 bootstrap_mode=mode, nfft=1 << 25)
+                                 bootstrap_mode=mode, nfft=1 << 27)
     assert [n for n, _ in launches] == ["fft_real", kernel]
     assert _named(launches, "fft_real")[0][4] == 0
     (args,) = _named(launches, kernel)
-    assert args[2:6] == (4, 600_000, 1 << 25, 0)
+    assert args[2:6] == (4, 600_000, 1 << 27, 0)
+    assert scratch == [(2, 1 << 27), (4, 1 << 27)]
 
 
 @pytest.mark.parametrize("nfft,n1,strips", [
     (4096, 1, (0, 0)), (1 << 16, 256, (16, 16)), (1 << 20, 1024, (16, 16)),
     (1 << 21, 2048, (8, 16)), (1 << 22, 2048, (8, 8)),
-    (1 << 23, 2048, (8, 4)), (1 << 24, 4096, (4, 4)), (1 << 25, 0, (0, 0))])
-def test_fft_real_schedule_by_length(launches, nfft, n1, strips):
+    (1 << 23, 2048, (8, 4)), (1 << 24, 4096, (4, 4)),
+    (1 << 25, 4096, (4, 2)), (1 << 26, 8192, (2, 2)), (1 << 27, 0, (0, 0))])
+def test_fft_real_schedule_by_length(launches, monkeypatch, nfft, n1,
+                                     strips):
     """K4a's n1 (``_split_n1``) and the strips of its two passes: 16 and
     16 up to 2^20, 8 columns from n1 = 2,048 and 8 rows at n2 = 2,048, 4
-    rows at n2 = 4,096 (2^23) and 4 columns at n1 = 4,096 (2^24); one
-    block (n1 = 1) and the passes (n1 = 0, above 2^24) read neither and
-    get 0."""
+    rows at n2 = 4,096 (2^23), 4 columns at n1 = 4,096 (2^24, 2^25), 2
+    rows at n2 = 8,192 (2^25, 2^26) and 2 columns at n1 = 8,192 (2^26);
+    one block (n1 = 1) and the passes (n1 = 0, above 2^26) read neither
+    and get 0."""
+    _no_tables(monkeypatch)
     cf.fft_real(torch.zeros(2, 100), nfft)
     (args,) = _named(launches, "fft_real")
     assert args[3:5] == (nfft, n1)
@@ -234,7 +255,7 @@ def test_other_kernels_keep_their_routes_above_2_20(launches, kernel, nfft,
                                                     n1):
     """K9's split, the GCCs' of K1, K2 and K5 (4 mics a scene) and the
     renders of K3 and K5 reach 2^24, as K4a's, K4b's and K6's
-    (``FFT_SPLIT_MAX``): n1 = 1,024 at 2^20, 2,048 from 2^21 to 2^23 and
+    (``SPECTRA_SPLIT_MAX``): n1 = 1,024 at 2^20, 2,048 from 2^21 to 2^23 and
     4,096 at 2^24, the GCCs through their mic rows' spectra and the
     renders through their base rows' spectra (``render_route``); the
     radix-2 passes (n1 = 0) at 2^25."""
@@ -247,11 +268,11 @@ def test_other_kernels_keep_their_routes_above_2_20(launches, kernel, nfft,
     assert cf.scene_stages(nfft, 4) == (n1, cf.gcc_route(nfft, 4).n1)
     if kernel in ("delay_sum", "scene_windowed"):
         kind = args[19] if kernel == "delay_sum" else args[35]
-        assert kind == (cf.ROUTE_PASSES if nfft > cf.FFT_SPLIT_MAX
+        assert kind == (cf.ROUTE_PASSES if nfft > cf.SPECTRA_SPLIT_MAX
                         else cf.ROUTE_SPECTRA)
     if kernel in ("gcc_all_pairs", "gcc_windowed", "scene_windowed"):
         kind = args[10 if kernel == "scene_windowed" else 6]
-        assert kind == (cf.ROUTE_PASSES if nfft > cf.FFT_SPLIT_MAX
+        assert kind == (cf.ROUTE_PASSES if nfft > cf.SPECTRA_SPLIT_MAX
                         else cf.ROUTE_SPECTRA)
 
 
@@ -281,7 +302,7 @@ def test_renders_from_2_20_take_the_base_rows_spectra(launches, nfft, n1,
     buffer, one block a mic row."""
     _route("delay_sum", nfft)
     _route("scene_windowed", nfft)
-    spectra = nfft <= cf.FFT_SPLIT_MAX
+    spectra = nfft <= cf.SPECTRA_SPLIT_MAX
     kind = cf.ROUTE_SPECTRA if spectra else cf.ROUTE_PASSES
     for name in RENDER_ARGS:
         (args,) = _named(launches, name)
@@ -445,7 +466,7 @@ def test_gcc_routes_by_shape(launches, kernel, nfft, mics, fits):
     if fits:
         want = cf.ROUTE_BLOCK if nfft <= 4096 else cf.ROUTE_ROWS
         assert (n1, kind) == (1 if nfft <= 4096 else split, want)
-    elif nfft > cf.FFT_SPLIT_MAX:
+    elif nfft > cf.SPECTRA_SPLIT_MAX:
         assert (n1, kind) == (0, cf.ROUTE_PASSES)
     elif nfft <= 4096:
         assert (n1, kind) == (1, cf.ROUTE_SPECTRA_BLOCK)
@@ -554,8 +575,10 @@ N1_OF = dict(N1_ARGS, fft_real=slice(3, 5), bootstrap_peaks=slice(4, 6),
 def test_all_transforming_kernels_leave_the_split_together(launches, bits,
                                                            n1):
     """All eight kernels that transform (K4a, K4b, K6, K9, K1, K2, K3, K5)
-    launch on the split at 2^24 (``FFT_SPLIT_MAX``, n1 = 4,096) and on the
-    radix-2 passes at 2^25 (n1 = 0): one limit for every kernel."""
+    launch on the split at 2^24 (``SPECTRA_SPLIT_MAX``, n1 = 4,096); at
+    2^25 the five of the spectra routes (K9, K1, K2, K3, K5) take the
+    radix-2 passes (n1 = 0) together, while K4a, K4b and K6 stay on the
+    split to ``FFT_SPLIT_MAX`` (n1 = 4,096 at 2^25)."""
     nfft = 1 << bits
     for kernel in ("gcc_all_pairs", "gcc_windowed", "delay_sum",
                    "scene_windowed", "whitened_corr"):
@@ -571,7 +594,10 @@ def test_all_transforming_kernels_leave_the_split_together(launches, bits,
         got = args[N1_OF[name]]
         if name == "scene_windowed":
             got = args[7:10]
-        assert got == (nfft,) + (n1,) * (len(got) - 1), name
+        want = n1
+        if name in ("fft_real", "bootstrap_peaks", "noise_bootstrap_peaks"):
+            want = cf.fft_real_split(nfft)[0]
+        assert got == (nfft,) + (want,) * (len(got) - 1), name
 
 
 # ---------------------------------------------------------------------------
@@ -585,16 +611,19 @@ def _row_counts(calls, name, index):
 @pytest.mark.parametrize("bits,draws,want", [
     (22, 1000, [1000]), (23, 1000, [512, 488]),
     (24, 1000, [256, 256, 256, 232]), (24, 300, [256, 44]),
-    (25, 100, [64, 36])])
+    (25, 100, [100]), (25, 200, [128, 72]), (26, 100, [64, 36]),
+    (27, 20, [16, 4])])
 def test_bootstraps_cap_their_scratch_by_bytes(launches, monkeypatch, bits,
                                                draws, want):
     """K4b's and K6's launches take at most ``_launch_rows`` rows: as many
     as keep the scratch within ``SPLIT_SCRATCH_BYTES`` (16 GiB; one buffer
     of packed rows on the split, two on the passes), an even count.  1,000
     draws at 2^22 keep one launch (16.8 GB); 512 rows a launch at 2^23, 256
-    at 2^24, 64 on the passes at 2^25.  Each chunk's rows, seeds and
-    peaks start where the previous chunk ended, and the scratch holds the
-    first chunk's packed rows."""
+    at 2^24, 128 at 2^25 (100 draws keep one launch), 64 at 2^26, 16 on
+    the passes at 2^27.  Each chunk's rows, seeds and peaks start where
+    the previous chunk ended, and the scratch holds the first chunk's
+    packed rows."""
+    _no_tables(monkeypatch)
     nfft = 1 << bits
     n1 = cf._split_n1(nfft)
     assert cf._launch_rows(n1, nfft) == want[0] or len(want) == 1
@@ -602,7 +631,7 @@ def test_bootstraps_cap_their_scratch_by_bytes(launches, monkeypatch, bits,
     stub = cf._scratch
     monkeypatch.setattr(cf, "_scratch", lambda rows, n, device: (
         scratch.append(rows) or stub(rows, n, device)))
-    s1 = torch.zeros(nfft // 2 + 1, dtype=torch.complex64)
+    s1 = torch.empty(nfft // 2 + 1, dtype=torch.complex64)
     cf.bootstrap_peaks(s1, torch.zeros(draws, 16), nfft)
     cf.noise_bootstrap_peaks(s1, torch.zeros(draws, 2, dtype=torch.int32),
                              16, nfft)

@@ -45,11 +45,12 @@ shapes (``GCC_SHAPES``) and K9 at the single pair's lengths and an edge
 (``CORR_SHAPES``), each held against its twin, by CUDA events and in
 device time by kernel, beside the twin's times (cuFFT).  ``--long``
 times only K4a, K4b, K6, K1 and K9 at their shapes above 2^20 (two rows
-of a 23.7 s pair at 2^21 and one row at 2^22, 2^23 and 2^24 against
-``torch.fft.rfft``; the pair's null at 64 and 1,000 draws, one row at
-2^22 and three at 2^23 and 2^24, K6 also at 1,000 draws at 2^23 and 300
-at 2^24, each K4b or K6 case from ``HEAVY_POINTS`` timed one call a loop
-and logged as not fitting where the card runs out of memory; K1 at the
+of a 23.7 s pair at 2^21 and one row at 2^22, 2^23, 2^24, 2^25 and 2^26
+against ``torch.fft.rfft``; the pair's null at 64 and 1,000 draws, one
+row at 2^22 and three at 2^23, 2^24, 2^25 and 2^26, the 200 s
+recording's 64 draws a pair at 2^25, K6 also at 1,000 draws at 2^23 and
+300 at 2^24, each K4b or K6 case from ``HEAVY_POINTS`` timed one call a
+loop and logged as not fitting where the card runs out of memory; K1 at the
 23.7 s recording's 4 and 8 mics at 2^21, 4 mics at 2^22, 4 and 8 at 2^23
 and 4 at 2^24, K9 at one pair of each); ``--gcc --long`` times only K1
 and K9 (``ROUTE_GCC``) and K2, K3 and K5 (``ROUTE_SCENES``) at the
@@ -61,9 +62,10 @@ K3 at 2^20, 2^22 and 2^23: their wall time cold and warm and their
 device time by kernel), each after the spectra kernels' ptxas lines;
 ``--recording`` runs chip_smoke.py's 4 x 24 s
 recording (phase 10, ``long_recording``) from this tree at 2^21 and 2^22,
-its 4 x 60 s recording at 2^23 (``recording23``) and its recordings of
-the spectra routes (``spectra_recordings``, 2^20 to 2^23): their wall
-time cold and warm and their device time by kernel.  ``--trace`` (alone)
+its 4 x 60 s recording at 2^23 (``recording23``), its 4 x 200 s
+recording at 2^25 (``recording25``) and its recordings of the spectra
+routes (``spectra_recordings``, 2^20 to 2^23): their wall time cold and
+warm and their device time by kernel.  ``--trace`` (alone)
 counts the ``device_ms`` traces that miss a kernel, with and without
 their idle edges (``trace_check``).  ``k10``
 (``--k10``, alone) times K10a (``row_dft``), K10b (``row_stages``) and
@@ -110,26 +112,31 @@ CHAIN_MIN_N2 = 512
 # api's single row, the single pair, max_expected_delay=None, and 1024 rows;
 # above 2^20 (the split's strips of 8) the single pair of a 23.7 s
 # recording at 44.1 kHz at 2^21 and one row of 2,000,000 samples at 2^22,
-# and (the split past 2^22, the long side in the rows) sig1 of a 47.5 s
-# and a 95 s recording at 44.1 kHz under max_expected_delay=None (2^23,
-# 2^24).
+# and (the split past 2^22, the long side in the rows) sig1 of a 47.5 s,
+# a 95 s, a 190 s and a 375 s recording at 44.1 kHz under
+# max_expected_delay=None (2^23 to 2^26).
 K4A_TOL = 5e-6
 LONG = 1046019            # 23.7 s at 44.1 kHz: the api's nfft is 2^21
+REC25 = 8820000           # 200 s at 44.1 kHz: 2^25 under the None gate
 K4A_SHAPES = ((1, 44100, 65536), (2, 44100, 65536), (1, 44100, 131072),
               (1024, 65536, 65536), (2, LONG, 1 << 21),
               (1, 2000000, 1 << 22), (1, 4200000, 1 << 23),
-              (1, 8400000, 1 << 24))
+              (1, 8400000, 1 << 24), (1, 16800000, 1 << 25),
+              (1, 33000000, 1 << 26))
 # K4b against its twin, absolute (peaks of correlations bounded by 1), at
 # the permutation null's shapes (rows, len, nfft): the main path's and
 # no_gate's lengths, two rows (16-row strips) and one block, and above 2^20
 # the 23.7 s pair's null at phase 10's 64 and the default 1,000 draws,
-# one row at 2^22 and three at 2^23 and 2^24; K7 at one scene's
-# exact-length spectrum; the calls a host step is timed over.
+# one row at 2^22 and three at 2^23 to 2^26, and the 200 s recording's 64
+# draws a pair at 2^25; K7 at one scene's exact-length spectrum; the calls
+# a host step is timed over.
 BOOT_TOL = 1e-6
 BOOT_SHAPES = ((1000, 44100, 65536), (1000, 44100, 131072),
                (2, 44100, 65536), (999, 3000, 4096), (64, LONG, 1 << 21),
                (1000, LONG, 1 << 21), (1, 2000000, 1 << 22),
-               (3, 4200000, 1 << 23), (3, 8400000, 1 << 24))
+               (3, 4200000, 1 << 23), (3, 8400000, 1 << 24),
+               (3, 16800000, 1 << 25), (3, 33000000, 1 << 26),
+               (64, REC25, 1 << 25))
 K7_SHAPE = (1, 44100)
 HOST_CALLS = 10_000
 # K6 at the noise null's shapes (draws, n_samp, nfft): the main path's and
@@ -140,7 +147,8 @@ K6_SHAPES = ((1000, 44100, 65536), (1000, 44100, 131072), (2, 44100, 65536),
              (999, 1500, 4096), (64, LONG, 1 << 21), (1000, LONG, 1 << 21),
              (1, 2000000, 1 << 22), (3, 4200000, 1 << 23),
              (3, 8400000, 1 << 24), (1000, 4200000, 1 << 23),
-             (300, 8400000, 1 << 24))
+             (300, 8400000, 1 << 24), (3, 16800000, 1 << 25),
+             (3, 33000000, 1 << 26), (64, REC25, 1 << 25))
 # Points (rows x nfft) from which K4b and K6 are timed by one call a loop
 # and traced over one call (a parent tree's radix-2 passes take seconds a
 # call there).
@@ -944,15 +952,19 @@ def recording(card: str) -> None:
     written, read back and localized with the noise null at nfft 2^21 and,
     under ``max_expected_delay=None``, 2^22, a warm call each, the device
     time by kernel), ``recording23`` (4 x 60 s at 44.1 kHz under
-    ``max_expected_delay=None``: K4a, K6 and K1 at 2^23) and
+    ``max_expected_delay=None``: K4a, K6 and K1 at 2^23), ``recording25``
+    (4 x 200 s: K4a and K6 at 2^25, K1 on its passes) and
     ``spectra_recordings`` (16 s on the full core at 2^20; 16, 30, 60 and
     120 s on the fast path at 2^20 to 2^23), logged beside ``card``.  A tree
     whose K1, K2, K4a or K6 still runs its radix-2 passes there logs them
-    (``hold_split=False``, ``hold_spectra=False``)."""
+    (``hold_split=False``, ``hold_spectra=False``).  To A/B a tree whose
+    ``chip_smoke.py`` lacks a step, run this file and ``chip_smoke.py``
+    from the newer tree in a copy of the older one."""
     smoke = _smoke()
     smoke.CARD[0] = card
     smoke.long_recording(cf, torch, {}, hold_split=False)
     smoke.recording23(cf, torch, {}, hold_split=False)
+    smoke.recording25(cf, torch, {}, hold_split=False)
     smoke.spectra_recordings(cf, torch, {}, hold_spectra=False)
 
 
