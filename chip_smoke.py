@@ -15,13 +15,14 @@ in twelve phases:
    ``torch.fft.rfft``, with device times, two rows of a 23.7 s
    recording at 2^21 and one row at 2^22 on the split with strips of 8,
    2 device kernels a call, one row at 2^23 (2,048 x 4,096: strips of 8
-   columns and 4 rows) and at 2^24 (4,096 x 4,096: 4 and 4) on the split
-   too, 2, and one row at 2^25 on the radix-2 passes, 27; K4b also at
-   no_gate's 131,072 and two rows, with its device time and kernels per
-   call, and above 2^20 at 64 and 1,000 rows of the 23.7 s pair at 2^21
-   and 3 rows at 2^22, 2^23 and 2^24, 3 device kernels a call, and 3 rows
-   at 2^25 on the passes, 52; K6 also at 131,072 and at K4b's shapes above
-   2^20 (the passes at 2^25: 51 kernels) and at 300 draws at 2^24 (two
+   columns and 4 rows), 2^24 (4,096 x 4,096: 4 and 4), 2^25 and 2^26
+   (4,096 x 8,192 and 8,192 x 8,192) on the split too, 2, and one row at
+   2^27 on the radix-2 passes, 29; K4b also at no_gate's 131,072 and two
+   rows, with its device time and kernels per call, and above 2^20 at 64
+   and 1,000 rows of the 23.7 s pair at 2^21 and 3 rows at 2^22 to 2^26,
+   3 device kernels a call, and 3 rows at 2^27 on the passes, 56; K6 also
+   at 131,072 and at K4b's shapes above 2^20 (the passes at 2^27: 55
+   kernels) and at 300 draws at 2^24 (two
    launches under the scratch's byte cap), each shape equal to K4b on the
    same draws, with its device
    time and kernels per call, as K5, K3 and K2 at the sweep's and the
@@ -42,22 +43,26 @@ in twelve phases:
    mic rows' spectra on the split K1 at 11 mics x 65,536, 8 mics x 2^18,
    1 x 4 mics of an 18 s recording (2^20) and of the 23.7 s recording's
    length and at 8 mics (2^21), at 4 mics x 2,000,000 samples (2^22), at
-   4 and 8 mics x 4,200,000 (2^23) and 4 mics x 8,400,000 (2^24), and K2
-   at the fast path's 4 mics at 2^20 to 2^24, 4 device kernels a call
+   4 and 8 mics x 4,200,000 (2^23), 4 mics x 8,400,000 (2^24), 4 and 8
+   mics x 16,800,000 (2^25) and 4 mics x 33,000,000 (2^26), and K2 at the
+   fast path's 4 mics at 2^20 to 2^26, 4 device kernels a call
    (K4a's two passes into the mic rows' spectra, K9's row
    pass over pairs of them, the column pass), and through them in one
    block K1 at 128 x 16 mics and K2 and K5 at 512 x 12 mics at 4,096 (2
    device kernels, K5 3; K5 also at 6 mics x 2^18, 8; K5 bit-equal to K3
    then K2 on both); K3 through the base rows' spectra at the fast path's
-   one scene of 4 mics at 2^20 to 2^24, 2 scenes x 3 mics x 3 paths at
+   one scene of 4 mics at 2^20 to 2^26, 2 scenes x 3 mics x 3 paths at
    2^21 (8 device kernels a call: K4a's two passes,
    ``render_spec_rows``, ``render_cols``, 4 steps of the finish spread
    over the card) and 64 scenes x 4 mics at 2^20 (5: one
-   ``render_finalize``), and K5 at the fast path's five (12, bit-equal
-   to K3 then K2); and K9 at one pair of each length to 2^24, 2, and at
-   2^25 on the radix-2 passes, each above 2^20 (K1 from 2^20) held to its
+   ``render_finalize``), and K5 at the fast path's seven (12, bit-equal
+   to K3 then K2); and K9 at one pair of each length to 2^26, 2; past
+   the split, on the radix-2 passes at 2^27, K9's pair (29), K1 at 4 mics
+   x 67,000,000 (57) and K2, K3 and K5 at the fast path's 4 mics x
+   96,000,000 (56, 57, 112); each above 2^20 (K1 from 2^20) held to its
    float32 twin within the limit plus the twin's own distance from its
-   float64 run, measured in the same run;
+   float64 run, measured in the same run, and up to 2^26 held to
+   no kernel of the radix-2 passes (``SPECTRA_PASS_KERNELS``);
    phase 11's shapes: K1 over segments x subframes, K3 over the moving
    render's 132 frames, K7 at 6 x 4,097 and 28 x 2,049 bins; phase 12's:
    K1 over array calibration's 8 x 4 and 12 x 6 events of 4,800 samples
@@ -338,13 +343,21 @@ ADDED = {("delay_sum", "odd"): 1, ("gcc_windowed", "odd"): 1,
          ("gcc_all_pairs", "split23"): 13, ("gcc_all_pairs", "split23_8"): 13,
          ("gcc_all_pairs", "split24"): 13, ("gcc_windowed", "fast23"): 13,
          ("gcc_windowed", "fast24"): 13, ("whitened_corr", "split23"): 13,
-         ("whitened_corr", "split24"): 13, ("whitened_corr", "passes25"): 13,
+         ("whitened_corr", "split24"): 13, ("whitened_corr", "split25"): 13,
          ("scene_windowed", "fast23"): 13, ("scene_windowed", "fast24"): 13,
          ("fft_real", "split26"): 14, ("fft_real", "passes27"): 14,
          ("bootstrap_peaks", "split26"): 14,
          ("bootstrap_peaks", "passes27"): 14,
          ("noise_bootstrap_peaks", "split26"): 14,
-         ("noise_bootstrap_peaks", "passes27"): 14}
+         ("noise_bootstrap_peaks", "passes27"): 14,
+         ("whitened_corr", "split26"): 15, ("whitened_corr", "passes27"): 15,
+         ("gcc_all_pairs", "split25"): 15, ("gcc_all_pairs", "split25_8"): 15,
+         ("gcc_all_pairs", "split26"): 15, ("gcc_windowed", "fast25"): 15,
+         ("gcc_windowed", "fast26"): 15, ("delay_sum", "fast25"): 15,
+         ("delay_sum", "fast26"): 15, ("scene_windowed", "fast25"): 15,
+         ("scene_windowed", "fast26"): 15, ("gcc_all_pairs", "passes27"): 16,
+         ("gcc_windowed", "passes27"): 16, ("delay_sum", "passes27"): 16,
+         ("scene_windowed", "passes27"): 16}
 # The sweep across K2's, K3's and K5's scene-chunk boundary: one scene past
 # the 65,535 grid rows of one launch at 4 mics (3 couples), at nfft 512.
 CHUNK_SCENES = 21846
@@ -355,29 +368,44 @@ LONG_DRAWS = 64
 # GCCs' largest split in the columns (2,048 x 2,048: 8 columns and 8 rows
 # a strip), at the splits past it (2,048 x 4,096: 8 columns, 4 rows;
 # 4,096 x 4,096: 4 and 4; a 47.5 s and a 95 s recording at 44.1 kHz under
-# ``max_expected_delay=None``), past 2^24 (K9's radix-2 passes; K4a's,
-# K4b's and K6's split of 4,096 x 8,192, 4 columns and 2 rows, and 8,192
-# x 8,192, 2 and 2: a 190 s and a 375 s recording) and past 2^26 (K4a's,
-# K4b's and K6's radix-2 passes), with their device kernels a call there
-# (K4a: the packing, 27 passes, the split; K4b: the packing, 27 forward
-# passes, the whitening, 26 inverse ones and the last with the maxima;
-# K6: its first pass draws the rows); K6's draws at 2^24 that take two
-# launches under the byte cap.
+# ``max_expected_delay=None``), past 2^24 (every transforming kernel's
+# split of 4,096 x 8,192, 4 columns and 2 rows, and 8,192 x 8,192, 2 and
+# 2, the n2-point table read from device memory: a 190 s and a 375 s
+# recording) and past 2^26 (the radix-2 passes), with their device
+# kernels a call there (K4a: the packing, 27 passes, the split; K4b: the
+# packing, 27 forward passes, the whitening, 26 inverse ones and the last
+# with the maxima; K6: its first pass draws the rows); K6's draws at 2^24
+# that take two launches under the byte cap.
 LONG22 = (2000000, 1 << 22)
 SPLIT23 = (4200000, 1 << 23)
 SPLIT24 = (8400000, 1 << 24)
-PASSES25 = (16800000, 1 << 25)
-SPLIT25 = PASSES25
+SPLIT25 = (16800000, 1 << 25)
 SPLIT26 = (33000000, 1 << 26)
 PASSES27 = (67000000, 1 << 27)
 DRAWS24 = 300
 # Phase 3's cases of the spectra routes: one scene's samples at the fast
-# path's (and the full core's) 2^20 to 2^24 under DEFAULT_CONFIG (18.1,
-# 34.0, 68.0, 136.1 and 272.1 s at 44.1 kHz).
+# path's (and the full core's) 2^20 to 2^26 under DEFAULT_CONFIG (18.1,
+# 34.0, 68.0, 136.1, 272.1, 544.2 and 1,088.4 s at 44.1 kHz), and at 2^27
+# (2,176.9 s), past the split, on the radix-2 passes.
 FAST_SAMPLES = {1 << 20: 800000, 1 << 21: 1500000, 1 << 22: 3000000,
-                1 << 23: 6000000, 1 << 24: 12000000}
+                1 << 23: 6000000, 1 << 24: 12000000, 1 << 25: 24000000,
+                1 << 26: 48000000, 1 << 27: 96000000}
+# Device kernels of the spectra routes' radix-2 passes (K9's, K1's,
+# K2's, K3's and K5's at n1 = 0): none may run on their split, to 2^26.
+SPECTRA_PASS_KERNELS = ("pack_rows", "stockham_pass", "gcc_cross",
+                        "split_pairs", "last_pass_window", "render_mix",
+                        "corr_cross")
+# Device kernels a call runs at 2^27 on the radix-2 passes (one row, row
+# pair or 4-mic scene; 27 passes a transform, 26 where the last is fused):
+# K9 the cross spectrum, 27 inverse passes, the split into the pairs; K1
+# the packing, 27 forward passes, the cross spectra, 27 inverse ones and
+# the split; K2 as K1 up to 26 inverse passes and the last with the
+# window; K3 the packing, 27 passes, the mix, 27 passes, the finalize;
+# K5 K3's 57 and K2's 55 after its packing.
 PASSES27_KERNELS = {"fft_real": 29, "bootstrap_peaks": 56,
-                    "noise_bootstrap_peaks": 55}
+                    "noise_bootstrap_peaks": 55, "whitened_corr": 29,
+                    "gcc_all_pairs": 57, "gcc_windowed": 56, "delay_sum": 57,
+                    "scene_windowed": 112}
 # The card's name and power limit (nvidia-smi), set by main().
 CARD = ["not read"]
 # Device kernels a call of K3 or K2 runs at phase 3's one-block shapes
@@ -386,11 +414,11 @@ ONE_BLOCK_KERNELS = {"trio": 1, "short": 1, "chunks": 2}
 # Device kernels a call of K5 runs at phase 3's spectra-route shapes: at
 # 4,096 ``render_block``, ``fft_real_block``, ``corr_block``; at 2^18 the
 # render's split (3) and finalize, then the GCC's four; at the fast path's
-# 2^20 to 2^24 the render through the base rows' spectra (4), the finish
+# 2^20 to 2^26 the render through the base rows' spectra (4), the finish
 # spread over the card (``finish_spread``, 4 steps), then the GCC's four.
 SPECTRA_K5_KERNELS = {"spectra_block": 3, "spectra18": 8, "fast20": 12,
                       "fast21": 12, "fast22": 12, "fast23": 12,
-                      "fast24": 12}
+                      "fast24": 12, "fast25": 12, "fast26": 12}
 # Device kernels a call of K3 runs through the base rows' spectra with
 # the finalize and the noise: K4a's two passes, ``render_spec_rows``,
 # ``render_cols``, then the finish, 4 steps of ``finish_spread`` where a
@@ -398,7 +426,7 @@ SPECTRA_K5_KERNELS = {"spectra_block": 3, "spectra18": 8, "fast20": 12,
 # ``render_finalize`` (64 scenes).
 RENDER_SPECTRA_KERNELS = {"fast20": 8, "fast21": 8, "fast22": 8,
                           "odd21": 8, "scenes20": 5, "fast23": 8,
-                          "fast24": 8}
+                          "fast24": 8, "fast25": 8, "fast26": 8}
 
 # name -> (source, TPU kernel it replaces)
 KERNELS = {
@@ -580,22 +608,30 @@ def kernel_phase(cf, torch):
     device_ms = bench.device_ms
     twin_rows = bench.twin_rows
 
-    def log_device(name, fn, calls=5, kernels=None):
+    def log_device(name, fn, calls=5, kernels=None, nfft=None):
         """Logs the device time and kernels per call (``torch.profiler``);
         raises unless a call runs ``kernels`` device kernels, where
-        given."""
+        given, and, given the nfft of a spectra route's call on its split
+        (up to ``FFT_SPLIT_MAX``), where one of them is a kernel of its
+        radix-2 passes (``SPECTRA_PASS_KERNELS``)."""
         dev_k = traced(bench, fn, calls, kernels)
         log(f"{name} device time per call: {dev_k['total']:.4f} ms in "
             f"{dev_k['kernels']:g} kernels ({bench._split(dev_k)})")
         if kernels is not None and dev_k["kernels"] != kernels:
             raise AssertionError(f"{name}: {dev_k['kernels']:g} device "
                                  f"kernels a call, want {kernels}")
+        if nfft is not None and nfft <= cf.FFT_SPLIT_MAX:
+            passes = [k for k in dev_k
+                      if any(p in k for p in SPECTRA_PASS_KERNELS)]
+            if passes:
+                raise AssertionError(f"{name} ran radix-2 pass kernels on "
+                                     f"its split: {passes}")
 
     def twin_gap(name, plain, *inputs):
         """max |plain(inputs) - plain(inputs widened to float64)|: the
         float32 twin's distance from its float64 run.  Above 2^20 a kernel
         is held to its float32 twin within the limit plus this distance,
-        which float32 rounding of a 2^21- to 2^24-point transform sets."""
+        which float32 rounding of a 2^21- to 2^27-point transform sets."""
         wide = [x.to(torch.complex128 if x.is_complex() else torch.float64)
                 for x in inputs]
         gap = float((plain(*inputs).double() - plain(*wide)).abs().max())
@@ -610,6 +646,98 @@ def kernel_phase(cf, torch):
     from pyaudiolocalization_tpu_torch.parallel import sweep as sw
     short = sw.SweepSpec(fs=16000.0, duration=0.1)
     short_wq = sw._tdoa_window_wq(short)
+    # The serving path's and array calibration's short shapes run before
+    # the long cases: after phase 3's cases from 2^23 on, the traces of
+    # their one-kernel calls lost kernels in all three tries (the moving
+    # render's 0.014 ms kernel, 0.8 of one a call, in a parent tree's run;
+    # PERF.md §7).  Their inputs come from streams of their own (ADDED),
+    # so they are the same wherever they run.
+    # The serving path's shapes (phase 11).  K1: the trajectory's segments
+    # x subframes (14 segments of the 2 s capture x 8 subframes of 512
+    # samples, 4 mics, at 1,024 points) and the crossing walkers' (12 x 8
+    # x 256 at 512); K3: every frame of the moving render a scene (1 path,
+    # no finalize, the faded frame + budget at the next power of two; the
+    # frames carry the windowed base in their first 512 samples); K7: the
+    # stream's EMA cross-spectra, 6 pairs x 4,097 bins and 28 x 2,049.
+    serving = _load_tool("torch_serving_golden")
+    for tag, (lead, m, length, nfft) in {
+            "subframes": ((14, 8), 4, 512, 1024),
+            "walkers": ((12, 8), 4, 256, 512)}.items():
+        draw("gcc_all_pairs", tag)
+        pi, pj = pairs(m)
+        sig = randn(*lead, m, length).contiguous()
+        mask = cf.band_mask(nfft, None, serving.FS, device=dev)
+        scenes = math.prod(lead)
+        nbytes = 4 * (scenes * (m * length + len(pi) * nfft) + nfft // 2 + 1)
+        compare(f"gcc_all_pairs[{tag}] B={lead} M={m} P={len(pi)} "
+                f"nfft={nfft}",
+                lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
+                lambda: cf.gcc_all_pairs_plain(sig, pi, pj, nfft, mask),
+                tol=1e-6, reps=20,
+                least=bound(nbytes, gcc_ops(scenes, m, len(pi), nfft)))
+        log_device(f"gcc_all_pairs[{tag}] (schedule n1="
+                   f"{cf.gcc_route(nfft, m).n1})",
+                   lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
+                   kernels=1)
+    mv = serving.MOVING
+    budget, lead_s = serving.moving_margins(mv["start"], mv["velocity"],
+                                            serving.TETRA, mv["duration"],
+                                            mv["frame"])
+    frames = -(-int(serving.FS * (mv["duration"] + 2.0 * lead_s
+                                  / serving.FS)) // (mv["frame"] // 2))
+    total, m = mv["frame"] + budget, 4
+    nfft = next_pow2(total)
+    draw("delay_sum", "moving")
+    base = torch.zeros((frames, total), device=dev)
+    base[:, :mv["frame"]] = randn(frames, mv["frame"])
+    tau = (rand(frames, m, 1) * budget).contiguous()
+    gains = rand(frames, m, 1).contiguous()
+    fade = fade_window(total, dtype=torch.float32, device=dev)
+    compare(f"delay_sum[moving] B={frames} M={m} paths=1 nfft={nfft} "
+            f"out={total} noise=False finalize=False",
+            lambda: cf.delay_sum(base, tau, gains, nfft, total, fade, False),
+            lambda: cf.delay_sum_plain(base, tau, gains, nfft, total, fade,
+                                       False),
+            tol=2e-5, reps=20, scale_by_max=True,
+            least=scene_bound("delay_sum", frames, m, 1, total, total, nfft,
+                              None, 0))
+    log_device("delay_sum[moving]",
+               lambda: cf.delay_sum(base, tau, gains, nfft, total, fade,
+                                    False), kernels=1)
+    for tag, shape in {"stream": (6, 4097), "stream28": (28, 2049)}.items():
+        draw("whiten", tag)
+        spec = torch.complex(randn(*shape), randn(*shape)).contiguous()
+        bins = spec.numel()
+        compare(f"whiten[{tag}] shape={shape}",
+                lambda: cf.whiten(spec), lambda: cf.whiten_plain(spec),
+                tol=1e-6, reps=20, scale_by_max=True,
+                least=bound(16 * bins, 6 * bins),
+                library_fn=lambda: torch.sgn(spec))
+        log(f"whiten[{tag}] device time per call: kernel "
+            f"{device_ms(lambda: cf.whiten(spec), 50)['total']:.4f} ms, "
+            f"torch.sgn "
+            f"{device_ms(lambda: torch.sgn(spec), 50)['total']:.4f} ms")
+
+    # Phase 12's shapes: K1 over array calibration's events (48 kHz x 0.1
+    # s, 4,800 samples, at nfft 16,384, no band): the tetrahedron's 8 and
+    # the 6-mic array's 12.
+    for tag, (b, m) in {"calibration": (8, 4),
+                        "calibration6": (12, 6)}.items():
+        draw("gcc_all_pairs", tag)
+        pi, pj = pairs(m)
+        length, nfft = 4800, 16384
+        sig = randn(b, m, length).contiguous()
+        mask = cf.band_mask(nfft, None, 48000.0, device=dev)
+        nbytes = 4 * (b * (m * length + len(pi) * nfft) + nfft // 2 + 1)
+        compare(f"gcc_all_pairs[{tag}] B={b} M={m} P={len(pi)} nfft={nfft}",
+                lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
+                lambda: cf.gcc_all_pairs_plain(sig, pi, pj, nfft, mask),
+                tol=1e-6, reps=20,
+                least=bound(nbytes, gcc_ops(b, m, len(pi), nfft)))
+        log_device(f"gcc_all_pairs[{tag}] ({route_note(cf, nfft, m)})",
+                   lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
+                   kernels=gcc_kernels(cf, nfft, m))
+
     # K3: render.  Main paths: the sweep's split render (512 scenes, 1
     # path, noise, 44,356 padded samples), the single scene's (22 paths =
     # direct + 21 image sources of 3 planes at order 3, 50,292 padded
@@ -619,7 +747,8 @@ def kernel_phase(cf, torch):
     # relative to their peak.  Up to 4,096 points (the edge, the trio
     # sweep's 8-mic render, the short sweep's and the chunks at 512) K3 is
     # one device kernel a launch (``render_block``), one launch a scene
-    # chunk.
+    # chunk.  The fast path's one scene of 4 mics at 2^27 (2,177 s) runs
+    # past the split, on the radix-2 passes.
     for tag, (b, m, paths, total, out, nfft, noise, fin) in {
             "main": (SWEEP_SCENES, 4, 1, 44356, N, NFFT, True, True),
             "scene": (1, 4, 22, 50292, N, NFFT, True, True),
@@ -650,7 +779,13 @@ def kernel_phase(cf, torch):
             "fast23": (1, 4, 1, 6200000, FAST_SAMPLES[1 << 23], 1 << 23,
                        True, True),
             "fast24": (1, 4, 1, 12400000, FAST_SAMPLES[1 << 24], 1 << 24,
-                       True, True)}.items():
+                       True, True),
+            "fast25": (1, 4, 1, 24800000, FAST_SAMPLES[1 << 25], 1 << 25,
+                       True, True),
+            "fast26": (1, 4, 1, 49600000, FAST_SAMPLES[1 << 26], 1 << 26,
+                       True, True),
+            "passes27": (1, 4, 1, 99200000, FAST_SAMPLES[1 << 27], 1 << 27,
+                         True, True)}.items():
         draw("delay_sum", tag)
         base, tau, gains, snr, seeds, fade = scene_inputs(b, m, paths,
                                                           total, out)
@@ -662,16 +797,18 @@ def kernel_phase(cf, torch):
                                  *nz),
             lambda: cf.delay_sum_plain(base, tau, gains, nfft, out, fade,
                                        fin, *nz),
-            tol=2e-5, reps=3 if b > 1 else 20, scale_by_max=not fin,
+            tol=2e-5, reps=3 if b > 1 or tag == "passes27" else 20,
+            scale_by_max=not fin,
             least=scene_bound("delay_sum", b, m, paths, total, out, nfft,
                               None, noise))
-        if tag in ("main", "scene", "reverb", "trio", "short",
-                   "chunks") or tag in RENDER_SPECTRA_KERNELS:
+        if tag in ("main", "scene", "reverb", "trio", "short", "chunks",
+                   "passes27") or tag in RENDER_SPECTRA_KERNELS:
             log_device(f"delay_sum[{tag}] ({render_note(cf, nfft, b * m)})",
                        lambda: cf.delay_sum(base, tau, gains, nfft, out,
                                             fade, fin, *nz),
-                       kernels=ONE_BLOCK_KERNELS.get(tag)
-                       or RENDER_SPECTRA_KERNELS.get(tag))
+                       kernels=PASSES27_KERNELS["delay_sum"]
+                       if tag == "passes27" else ONE_BLOCK_KERNELS.get(tag)
+                       or RENDER_SPECTRA_KERNELS.get(tag), nfft=nfft)
         if tag == "chunks":
             per_call(cf, "delay_sum", lambda: cf.delay_sum(
                 base, tau, gains, nfft, out, fade, fin, *nz), 2)
@@ -693,7 +830,11 @@ def kernel_phase(cf, torch):
     # full core) and 8 mics at 2^18; past 2^22 a 95 s recording's 4 and 8
     # mics at 2^23 (2,048 x 4,096: strips of 8 columns, 4 rows) and a 190
     # s recording's 4 at 2^24 (4,096 x 4,096: 4 and 4) under
-    # ``max_expected_delay=None``.  Through them in one block (2 device
+    # ``max_expected_delay=None``; past 2^24 a 190 s recording's 4 and 8
+    # mics at 2^25 (4,096 x 8,192: 4 columns, 2 rows) and a 375 s
+    # recording's 4 at 2^26 (8,192 x 8,192: 2 and 2), the n2-point table
+    # read from device memory; past the split a 1,519 s recording's 4 at
+    # 2^27 on the radix-2 passes.  Through them in one block (2 device
     # kernels): 128 scenes of 16 mics at 4,096.
     for tag, (b, m, length, nfft, band) in {
             "api": (None, 4, N, NFFT, (300.0, 3400.0)),
@@ -715,7 +856,11 @@ def kernel_phase(cf, torch):
                               (300.0, 3400.0)),
             "split23": (None, 4) + SPLIT23 + (None,),
             "split23_8": (None, 8) + SPLIT23 + ((300.0, 3400.0),),
-            "split24": (None, 4) + SPLIT24 + (None,)}.items():
+            "split24": (None, 4) + SPLIT24 + (None,),
+            "split25": (None, 4) + SPLIT25 + (None,),
+            "split25_8": (None, 8) + SPLIT25 + ((300.0, 3400.0),),
+            "split26": (None, 4) + SPLIT26 + (None,),
+            "passes27": (None, 4) + PASSES27 + (None,)}.items():
         draw("gcc_all_pairs", tag)
         pi, pj = pairs(m)
         sig = (randn(m, length) if b is None
@@ -731,11 +876,13 @@ def kernel_phase(cf, torch):
             f"gcc_all_pairs[{tag}] B={b} M={m} P={len(pi)} nfft={nfft}",
             lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
             lambda: cf.gcc_all_pairs_plain(sig, pi, pj, nfft, mask),
-            tol=tol, reps=20 if scenes == 1 else 3,
+            tol=tol, reps=20 if scenes == 1 and tag != "passes27" else 3,
             least=bound(nbytes, gcc_ops(scenes, m, len(pi), nfft)))
         log_device(f"gcc_all_pairs[{tag}] ({route_note(cf, nfft, m)})",
                    lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
-                   kernels=gcc_kernels(cf, nfft, m))
+                   kernels=PASSES27_KERNELS["gcc_all_pairs"]
+                   if tag == "passes27" else gcc_kernels(cf, nfft, m),
+                   nfft=nfft)
         if tag == "main":
             results["gcc_all_pairs"] = res
         del sig
@@ -744,8 +891,9 @@ def kernel_phase(cf, torch):
     # api fast path's single scene (wq 21), an odd edge shape, the short
     # sweep's 512 scenes at 2,048 and the chunks at 512 (one device kernel
     # a launch, ``window_block``).  Through the mic rows' spectra: the
-    # api fast path's single scene of 4 mics at 2^20 to 2^24 (18 s to 272 s
-    # recordings; 4 device kernels a call, ``window_cols`` last)
+    # api fast path's single scene of 4 mics at 2^20 to 2^26 (18 s to
+    # 1,088 s recordings; 4 device kernels a call, ``window_cols`` last),
+    # and at 2^27 (2,177 s) past the split on the radix-2 passes
     # and 512 scenes of 12 mics at 4,096 (2 device kernels, ``corr_block``
     # with the window's epilogue).
     for tag, (b, m, length, nfft, wq) in {
@@ -761,7 +909,10 @@ def kernel_phase(cf, torch):
             "fast22": (1, 4, FAST_SAMPLES[1 << 22], 1 << 22, 21),
             "spectra_block": (SWEEP_SCENES, 12, 4000, 4096, 2),
             "fast23": (1, 4, FAST_SAMPLES[1 << 23], 1 << 23, 21),
-            "fast24": (1, 4, FAST_SAMPLES[1 << 24], 1 << 24, 21)}.items():
+            "fast24": (1, 4, FAST_SAMPLES[1 << 24], 1 << 24, 21),
+            "fast25": (1, 4, FAST_SAMPLES[1 << 25], 1 << 25, 21),
+            "fast26": (1, 4, FAST_SAMPLES[1 << 26], 1 << 26, 21),
+            "passes27": (1, 4, FAST_SAMPLES[1 << 27], 1 << 27, 21)}.items():
         draw("gcc_windowed", tag)
         pi, pj = pairs(m)
         sig = randn(b, m, length).contiguous()
@@ -783,14 +934,17 @@ def kernel_phase(cf, torch):
             f"gcc_windowed[{tag}] B={b} M={m} P={p} nfft={nfft} wq={wq}",
             lambda: cf.gcc_windowed(sig, pi, pj, nfft, wq, mask),
             lambda: cf.gcc_windowed_plain(sig, pi, pj, nfft, wq, mask),
-            tol=tol, reps=3 if b > 1 else 20,
+            tol=tol, reps=3 if b > 1 or tag == "passes27" else 20,
             least=scene_bound("gcc_windowed", b, m, 0, 0, length, nfft, wq,
                               0))
-        if tag in ("main", "api", "short", "chunks") or new_route:
+        if tag in ("main", "api", "short", "chunks", "passes27") or (
+                new_route):
             log_device(f"gcc_windowed[{tag}] ({route_note(cf, nfft, m)})",
                        lambda: cf.gcc_windowed(sig, pi, pj, nfft, wq, mask),
                        kernels=gcc_kernels(cf, nfft, m) if new_route
-                       else ONE_BLOCK_KERNELS.get(tag))
+                       else PASSES27_KERNELS["gcc_windowed"]
+                       if tag == "passes27" else ONE_BLOCK_KERNELS.get(tag),
+                       nfft=nfft)
         if tag == "chunks":
             per_call(cf, "gcc_windowed", lambda: cf.gcc_windowed(
                 sig, pi, pj, nfft, wq, mask), 2)
@@ -979,101 +1133,17 @@ def kernel_phase(cf, torch):
         if tag == "main":
             results["whiten"] = res
 
-    # The serving path's shapes (phase 11).  K1: the trajectory's segments
-    # x subframes (14 segments of the 2 s capture x 8 subframes of 512
-    # samples, 4 mics, at 1,024 points) and the crossing walkers' (12 x 8
-    # x 256 at 512); K3: every frame of the moving render a scene (1 path,
-    # no finalize, the faded frame + budget at the next power of two; the
-    # frames carry the windowed base in their first 512 samples); K7: the
-    # stream's EMA cross-spectra, 6 pairs x 4,097 bins and 28 x 2,049.
-    serving = _load_tool("torch_serving_golden")
-    for tag, (lead, m, length, nfft) in {
-            "subframes": ((14, 8), 4, 512, 1024),
-            "walkers": ((12, 8), 4, 256, 512)}.items():
-        draw("gcc_all_pairs", tag)
-        pi, pj = pairs(m)
-        sig = randn(*lead, m, length).contiguous()
-        mask = cf.band_mask(nfft, None, serving.FS, device=dev)
-        scenes = math.prod(lead)
-        nbytes = 4 * (scenes * (m * length + len(pi) * nfft) + nfft // 2 + 1)
-        compare(f"gcc_all_pairs[{tag}] B={lead} M={m} P={len(pi)} "
-                f"nfft={nfft}",
-                lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
-                lambda: cf.gcc_all_pairs_plain(sig, pi, pj, nfft, mask),
-                tol=1e-6, reps=20,
-                least=bound(nbytes, gcc_ops(scenes, m, len(pi), nfft)))
-        log_device(f"gcc_all_pairs[{tag}] (schedule n1="
-                   f"{cf.gcc_route(nfft, m).n1})",
-                   lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
-                   kernels=1)
-    mv = serving.MOVING
-    budget, lead_s = serving.moving_margins(mv["start"], mv["velocity"],
-                                            serving.TETRA, mv["duration"],
-                                            mv["frame"])
-    frames = -(-int(serving.FS * (mv["duration"] + 2.0 * lead_s
-                                  / serving.FS)) // (mv["frame"] // 2))
-    total, m = mv["frame"] + budget, 4
-    nfft = next_pow2(total)
-    draw("delay_sum", "moving")
-    base = torch.zeros((frames, total), device=dev)
-    base[:, :mv["frame"]] = randn(frames, mv["frame"])
-    tau = (rand(frames, m, 1) * budget).contiguous()
-    gains = rand(frames, m, 1).contiguous()
-    fade = fade_window(total, dtype=torch.float32, device=dev)
-    compare(f"delay_sum[moving] B={frames} M={m} paths=1 nfft={nfft} "
-            f"out={total} noise=False finalize=False",
-            lambda: cf.delay_sum(base, tau, gains, nfft, total, fade, False),
-            lambda: cf.delay_sum_plain(base, tau, gains, nfft, total, fade,
-                                       False),
-            tol=2e-5, reps=20, scale_by_max=True,
-            least=scene_bound("delay_sum", frames, m, 1, total, total, nfft,
-                              None, 0))
-    log_device("delay_sum[moving]",
-               lambda: cf.delay_sum(base, tau, gains, nfft, total, fade,
-                                    False), kernels=1)
-    for tag, shape in {"stream": (6, 4097), "stream28": (28, 2049)}.items():
-        draw("whiten", tag)
-        spec = torch.complex(randn(*shape), randn(*shape)).contiguous()
-        bins = spec.numel()
-        compare(f"whiten[{tag}] shape={shape}",
-                lambda: cf.whiten(spec), lambda: cf.whiten_plain(spec),
-                tol=1e-6, reps=20, scale_by_max=True,
-                least=bound(16 * bins, 6 * bins),
-                library_fn=lambda: torch.sgn(spec))
-        log(f"whiten[{tag}] device time per call: kernel "
-            f"{device_ms(lambda: cf.whiten(spec), 50)['total']:.4f} ms, "
-            f"torch.sgn "
-            f"{device_ms(lambda: torch.sgn(spec), 50)['total']:.4f} ms")
-
-    # Phase 12's shapes: K1 over array calibration's events (48 kHz x 0.1
-    # s, 4,800 samples, at nfft 16,384, no band): the tetrahedron's 8 and
-    # the 6-mic array's 12.
-    for tag, (b, m) in {"calibration": (8, 4),
-                        "calibration6": (12, 6)}.items():
-        draw("gcc_all_pairs", tag)
-        pi, pj = pairs(m)
-        length, nfft = 4800, 16384
-        sig = randn(b, m, length).contiguous()
-        mask = cf.band_mask(nfft, None, 48000.0, device=dev)
-        nbytes = 4 * (b * (m * length + len(pi) * nfft) + nfft // 2 + 1)
-        compare(f"gcc_all_pairs[{tag}] B={b} M={m} P={len(pi)} nfft={nfft}",
-                lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
-                lambda: cf.gcc_all_pairs_plain(sig, pi, pj, nfft, mask),
-                tol=1e-6, reps=20,
-                least=bound(nbytes, gcc_ops(b, m, len(pi), nfft)))
-        log_device(f"gcc_all_pairs[{tag}] ({route_note(cf, nfft, m)})",
-                   lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
-                   kernels=gcc_kernels(cf, nfft, m))
-
     # K9: whitened correlation of two K4a spectra, no band
     # (phat_correlation).  Main: the single pair at nfft 65,536; no_gate's
     # 131,072 (both on the split, 2 device kernels a call); edge: three row
     # pairs in one block (1); above 2^20 the single pair of a 23.7 s
     # recording at 2^21 and of 2,000,000 samples at 2^22 (the split with
     # strips of 8, 2 device kernels a call), of 4,200,000 at 2^23 (8
-    # columns, 4 rows) and 8,400,000 at 2^24 (4 and 4), 2 device kernels
-    # a call; of 16,800,000 at 2^25 on the radix-2 passes (K9's split, as
-    # the spectra routes', stops at 2^24).
+    # columns, 4 rows), 8,400,000 at 2^24 (4 and 4), 16,800,000 at 2^25
+    # (4 and 2) and 33,000,000 at 2^26 (2 and 2; the row pass reads the
+    # n2-point table from device memory there), 2 device kernels a call;
+    # of 67,000,000 at 2^27 on the radix-2 passes (past ``FFT_SPLIT_MAX``,
+    # as every transforming kernel).
     for tag, (rows_n, length, nfft) in {"main": (1, N, NFFT),
                                         "edge": (3, 3000, 4096),
                                         "no_gate": (1, N, 2 * NFFT),
@@ -1081,7 +1151,9 @@ def kernel_phase(cf, torch):
                                         "long22": (1,) + LONG22,
                                         "split23": (1,) + SPLIT23,
                                         "split24": (1,) + SPLIT24,
-                                        "passes25": (1,) + PASSES25}.items():
+                                        "split25": (1,) + SPLIT25,
+                                        "split26": (1,) + SPLIT26,
+                                        "passes27": (1,) + PASSES27}.items():
         draw("whitened_corr", tag)
         spec = cf.fft_real_plain(randn(2 * rows_n, length), nfft)
         a, b = spec[:rows_n].contiguous(), spec[rows_n:].contiguous()
@@ -1101,7 +1173,8 @@ def kernel_phase(cf, torch):
         n1 = cf.corr_schedule(nfft)
         log_device(f"whitened_corr[{tag}] (schedule n1={n1})",
                    lambda: cf.whitened_corr(a, b, mask, nfft),
-                   kernels={1: 1, 0: None}.get(n1, 2))
+                   kernels={1: 1, 0: PASSES27_KERNELS["whitened_corr"]}.get(
+                       n1, 2), nfft=nfft)
         if tag == "main":
             results["whitened_corr"] = res
 
@@ -1112,7 +1185,9 @@ def kernel_phase(cf, torch):
     # ``window_block``).  Through the mic rows' spectra: 512 scenes of 12
     # mics at 4,096 (``render_block``, K4a's ``fft_real_block`` over the
     # finished signals, ``corr_block``: 3 device kernels) and one scene of
-    # 6 mics at 2^18 (the render's split and finalize, then the GCC's 4: 8).
+    # 6 mics at 2^18 (the render's split and finalize, then the GCC's 4: 8);
+    # the fast path's one scene of 4 mics at 2^20 to 2^26 (12), and at 2^27
+    # past the split, on the radix-2 passes (112).
     # Fused and split must agree to 1e-6 with equal argmax: they run the
     # same stage code; at the short sweep's shape, across the chunks and
     # on the spectra routes to the bit.
@@ -1133,7 +1208,13 @@ def kernel_phase(cf, torch):
             "fast23": (1, 4, 1, 6200000, FAST_SAMPLES[1 << 23], 1 << 23,
                        21),
             "fast24": (1, 4, 1, 12400000, FAST_SAMPLES[1 << 24], 1 << 24,
-                       21)}.items():
+                       21),
+            "fast25": (1, 4, 1, 24800000, FAST_SAMPLES[1 << 25], 1 << 25,
+                       21),
+            "fast26": (1, 4, 1, 49600000, FAST_SAMPLES[1 << 26], 1 << 26,
+                       21),
+            "passes27": (1, 4, 1, 99200000, FAST_SAMPLES[1 << 27], 1 << 27,
+                         21)}.items():
         draw("scene_windowed", tag)
         pi, pj = pairs(m)
         base, tau, gains, snr, seeds, fade = scene_inputs(b, m, paths,
@@ -1170,15 +1251,17 @@ def kernel_phase(cf, torch):
             per_call(cf, "scene_windowed", lambda: cf.scene_windowed(
                 base, tau, gains, pi, pj, nfft, out, wq, fade, mask, snr,
                 seeds), 2)
-        if tag in ("main", "api", "short", "chunks") or (
+        if tag in ("main", "api", "short", "chunks", "passes27") or (
                 tag in SPECTRA_K5_KERNELS):
             log_device(f"scene_windowed[{tag}] ({route_note(cf, nfft, m)}; "
                        f"{render_note(cf, nfft, b * m)})",
                        lambda: cf.scene_windowed(base, tau, gains, pi, pj,
                                                  nfft, out, wq, fade, mask,
                                                  snr, seeds), 3,
-                       SPECTRA_K5_KERNELS.get(tag)
-                       or 2 * ONE_BLOCK_KERNELS.get(tag, 0) or None)
+                       PASSES27_KERNELS["scene_windowed"]
+                       if tag == "passes27" else SPECTRA_K5_KERNELS.get(tag)
+                       or 2 * ONE_BLOCK_KERNELS.get(tag, 0) or None,
+                       nfft=nfft)
         if tag == "main":
             results["scene_windowed"] = res
     return results
@@ -3271,9 +3354,8 @@ def recording23(cf, torch, launches, hold_split=True):
 
 # Step 3c's recording: 4 mics x 200 s at 44.1 kHz (no resampling) with
 # ``REC23_DELAYS``, whose GCC and noise null transform at 2^25 under
-# ``max_expected_delay=None`` (next_pow2(2n - 1)): K4a and K6 on their
-# split of 4,096 x 8,192, K1 on its radix-2 passes (the spectra routes
-# stop at 2^24).
+# ``max_expected_delay=None`` (next_pow2(2n - 1)): K4a, K6 and K1 on
+# their split of 4,096 x 8,192.
 REC25_SECONDS = 200
 
 
@@ -3282,15 +3364,15 @@ def recording25(cf, torch, launches, hold_split=True):
     whole-sample delays (``REC23_DELAYS``), written by the port's write_wav
     and read back without resampling, localized under
     ``max_expected_delay=None`` with the noise null at ``LONG_DRAWS`` draws
-    a pair (384 draws of 8,820,000 samples): nfft 2^25, K4a and K6 on
-    their split (4,096 x 8,192, the n2-point table read from device
-    memory), K1 on its radix-2 passes.  Each TDOA within 0.5 samples of
-    its injected delay; then a second, warm call's wall time and one more
-    call's device time by kernel (``torch.profiler``), which holds no
-    kernel of K4a's or K6's passes (``K4A_K6_PASS_KERNELS``; ``hold_split``
-    False only logs them, for an A/B against a tree that runs them); K1's
-    pass kernels are logged (``K1_PASS_KERNELS``).  Returns the device
-    time by kernel."""
+    a pair (384 draws of 8,820,000 samples): nfft 2^25, K4a, K6 and K1
+    (through its mic rows' spectra) on their split (4,096 x 8,192, the
+    n2-point table read from device memory).  Each TDOA within 0.5
+    samples of its injected delay; then a second, warm call's wall time
+    and one more call's device time by kernel (``torch.profiler``), which
+    holds no kernel of K4a's, K6's or K1's passes
+    (``K4A_K6_PASS_KERNELS``, ``K1_PASS_KERNELS``; ``hold_split`` False
+    only logs them, for an A/B against a tree that runs them).  Returns
+    the device time by kernel."""
     from pyaudiolocalization_tpu_torch import api
     n = int(FS) * REC25_SECONDS
     paths = _noise_recording(200, FS, n, REC23_DELAYS, "chip_smoke_rec25_")
@@ -3303,14 +3385,13 @@ def recording25(cf, torch, launches, hold_split=True):
         raise AssertionError(f"{name} misses nfft {SPLIT25[1]}")
     dev = _localize_recording(cf, torch, launches, name, paths, None,
                               _pair_delays(REC23_DELAYS), "files")
-    own = [k for k in dev if any(p in k for p in K4A_K6_PASS_KERNELS)]
-    k1 = [k for k in dev if any(p in k for p in K1_PASS_KERNELS)]
-    if own and hold_split:
-        raise AssertionError(f"{name} ran K4a's or K6's radix-2 passes: "
-                             f"{own}")
-    log(f"{name}: K4a's and K6's radix-2 pass kernels in the trace: "
-        f"{own or 'none'}; K1's (its passes above 2^24): "
-        f"{', '.join(f'{k} {dev[k]:.3f}' for k in k1) or 'none'}")
+    passes = [k for k in dev if any(
+        p in k for p in K4A_K6_PASS_KERNELS + K1_PASS_KERNELS)]
+    if passes and hold_split:
+        raise AssertionError(f"{name} ran K4a's, K6's or K1's radix-2 "
+                             f"passes: {passes}")
+    log(f"{name}: K4a's, K6's and K1's radix-2 pass kernels in the trace: "
+        f"{', '.join(f'{k} {dev[k]:.3f}' for k in passes) or 'none'}")
     return dev
 
 

@@ -11,9 +11,9 @@
 //    shared memory a block can hold, so every pass streams the rows
 //    through device memory (and the 50 MB L2): 16 bytes per point per
 //    pass, about 16 * log2(n) bytes per point and transform, and one
-//    launch per pass.  K1, K2, K3, K5 and K9 run on it above 2^24, K4a,
-//    K4b and K6 above 2^26; they fuse their first or last pass into a
-//    prologue or epilogue.
+//    launch per pass.  Every transforming kernel (K1, K2, K3, K4a, K4b,
+//    K5, K6 and K9) runs on it above 2^26 only; they fuse their first or
+//    last pass into a prologue or epilogue.
 //
 // 2. On-chip sub-transforms (`block_fft`): one block transforms S
 //    sequences of length L (L * S <= kElems * 1024) held in shared memory,

@@ -36,7 +36,7 @@ namespace {
 
 constexpr int kRowThreads = 1024;
 // The GCC routes of K1, K2 and K5 (``cuda_fft.gcc_route`` picks one for
-// (nfft, mics), the same for the three): the radix-2 passes (above 2^24),
+// (nfft, mics), the same for the three): the radix-2 passes (above 2^26),
 // one block a scene, the split with `gcc_rows`, the split through the mic
 // rows' spectra, and one block a packed cross row through the spectra.
 // K3's render stage, K5's too, takes the first four (``cuda_fft.
@@ -233,40 +233,36 @@ cudaError_t with_strip(int s2, Launch launch) {
   return cudaErrorInvalidValue;
 }
 
-// The same for the strips of the split's column passes (K4a's, K4b's,
-// K6's and the spectra routes') and of its one-strip row passes (K4b's
-// and K6's `boot_rows`, and the spectra routes' `corr_rows` and
-// `render_spec_rows`): 16 (kStrip) up to n1 (n2) = 1,024, 8 at 2,048 and
-// 4 at 4,096 (``cuda_fft.split_strips``, ``spectra_plan``).
-template <typename Launch>
-cudaError_t with_split_strip(int strip, Launch launch) {
-  if (strip == palt::kStrip)
-    return launch(std::integral_constant<int, palt::kStrip>());
-  if (strip == 8) return launch(std::integral_constant<int, 8>());
-  if (strip == 4) return launch(std::integral_constant<int, 4>());
-  return cudaErrorInvalidValue;
-}
-
 // The largest n2 whose n2-point table `hi` the split kernels stage in
 // shared memory (every shape up to 2^24); above, at n2 = 8,192 (2^25 and
-// 2^26, K4a's, K4b's and K6's split only), `fft_real_cols` and `boot_rows`
-// read it from device memory (`HiTable`), so that their strips fit
+// 2^26), the split's row passes and its first column pass read it from
+// device memory (`HiTable`), so that their strips fit
 // (``cuda_fft.split_hi_points``).
 constexpr int kHiSharedMax = 4096;
 
 // Calls launch(std::integral_constant<int, S>(), std::bool_constant<kHi>())
-// for a strip of K4a's, K4b's and K6's split at n2: up to kHiSharedMax
-// `with_split_strip`'s strips with kHi = false, so that every shape up to
-// 2^24 builds the kernels it had; above, strips of 2 up to kWidest (4 for
-// the column passes at n1 = 4,096, 2 at 8,192; 2 for the row passes) with
-// kHi = true (``cuda_fft.split_strips``).  The spectra routes stop at 2^24
-// and never instantiate these.
+// for a strip of the split at n2, one rule for every split kernel: the
+// strips of its column passes (K4a's, K4b's, K6's and the spectra
+// routes') and of its one-strip row passes (K4b's and K6's `boot_rows`,
+// the spectra routes' `corr_rows` and `render_spec_rows`).  Up to
+// kHiSharedMax, 16 (kStrip) up to n1 (n2) = 1,024, 8 at 2,048 and 4 at
+// 4,096 with kHi = false, so that every shape up to 2^24 builds the
+// kernels it had; at n2 = 8,192, strips of 2 up to kWidest (4 for the
+// column passes at n1 = 4,096, 2 at 8,192; 2 for the row passes) with
+// kHi = true (``cuda_fft.split_strips``, ``spectra_plan``).  The passes
+// that hold no n2-point table ignore kHi.
 template <int kWidest = 4, typename Launch>
-cudaError_t with_long_strip(int strip, int n2, Launch launch) {
-  if (n2 <= kHiSharedMax)
-    return with_split_strip(strip, [&](auto s) {
-      return launch(s, std::false_type());
-    });
+cudaError_t with_split_strip(int strip, int n2, Launch launch) {
+  if (n2 <= kHiSharedMax) {
+    if (strip == palt::kStrip)
+      return launch(std::integral_constant<int, palt::kStrip>(),
+                    std::false_type());
+    if (strip == 8)
+      return launch(std::integral_constant<int, 8>(), std::false_type());
+    if (strip == 4)
+      return launch(std::integral_constant<int, 4>(), std::false_type());
+    return cudaErrorInvalidValue;
+  }
   if constexpr (kWidest >= 4) {
     if (strip == 4)
       return launch(std::integral_constant<int, 4>(), std::true_type());
@@ -1220,7 +1216,7 @@ cudaError_t boot_rows_launch(const float2* s1, int rows, int n1, int n2,
 // K4b / K6 on the split (n1 > 1) or in one block (n1 = 1) for rows given
 // by load; buf (ceil(rows/2), n) is the split's scratch.  cs: the columns
 // of a column pass's strip, rs: the rows of the row pass's (16, 8, 4 or
-// 2; `with_long_strip`).
+// 2; `with_split_strip`).
 template <class Load>
 cudaError_t boot_split(const float2* s1, Load load, int rows, int n, int n1,
                        int cs, int rs, float eps, const float2* tw,
@@ -1240,17 +1236,17 @@ cudaError_t boot_split(const float2* s1, Load load, int rows, int n, int n1,
     return cudaGetLastError();
   }
   const int n2 = n / n1;
-  err = with_long_strip(cs, n2, [&](auto strip, auto hi) {
+  err = with_split_strip(cs, n2, [&](auto strip, auto hi) {
     return cols_launch<decltype(strip)::value, decltype(hi)::value>(
         load, packed, n1, n2, tw, buf, s);
   });
   if (err != cudaSuccess) return err;
-  err = with_long_strip<2>(rs, n2, [&](auto strip, auto hi) {
+  err = with_split_strip<2>(rs, n2, [&](auto strip, auto hi) {
     return boot_rows_launch<decltype(strip)::value, decltype(hi)::value>(
         s1, rows, n1, n2, eps, tw, buf, out, s);
   });
   if (err != cudaSuccess) return err;
-  return with_long_strip(cs, n2, [&](auto strip, auto) {
+  return with_split_strip(cs, n2, [&](auto strip, auto) {
     constexpr int S = decltype(strip)::value;
     const cudaError_t e = palt::allow_smem<boot_cols<S>>();
     if (e != cudaSuccess) return e;
@@ -1725,9 +1721,9 @@ finish_spread(float2* z, int rows, int n, int mics, int out_len,
 // the mic count, for K3, K2 and K5 alike: the rows routes); up to 4,096
 // points one block holds a packed
 // base row (`render_block`) or a scene (`window_block`, where its rows
-// fit).  Elsewhere up to 2^24 both stages go through spectra on the
+// fit).  Elsewhere up to 2^26 both stages go through spectra on the
 // split: the render through the base rows' (`render_spectra`), the GCC
-// through the mic rows' (`window_route`); above 2^24 both run the radix-2
+// through the mic rows' (`window_route`); above 2^26 both run the radix-2
 // passes (`render_stage`, `window_stage`).  Three launches a stage on the
 // split with two-strip row passes:
 //
@@ -1831,14 +1827,15 @@ render_rows(const float* __restrict__ tau, const float* __restrict__ gain,
 // `mic_response`, stored as the Hermitian pair (`store_pair`); then the
 // inverse row DFTs and the conjugate twiddle into z.  One strip at any
 // mic count, of S = 16 rows (8 at n2 = 2,048: 172 KB; 4 at 4,096: 192-208
-// KB), at the bank-spread stride `row_ld`, where `render_rows`' two
-// strips pass a block's shared memory (from 2^20).  The grid holds a
-// block for each strip of each packed mic row, 128 to 1,024 blocks for
-// one scene of 4 mics, so it needs no `row_groups`.  Above 2^20 the
-// tables come from the contiguous copies (`stage_split_tables_of`).  A
-// block runs fft_threads(n2, S) = 1,024 threads: 512 threads of twice the
-// points measured 3-12 % slower from 2^21 to 2^24 (PERF.md).
-template <int S>
+// KB; 2 at 8,192 with kHi, hi read from device memory: 192-224 KB), at
+// the bank-spread stride `row_ld`, where `render_rows`' two strips pass
+// a block's shared memory (from 2^20).  The grid holds a block for each
+// strip of each packed mic row, 128 to 8,192 blocks for one scene of 4
+// mics, so it needs no `row_groups`.  Above 2^20 the tables come from
+// the contiguous copies (`stage_split_lo_hi`).  A block runs
+// fft_threads(n2, S) = 1,024 threads: 512 threads of twice the points
+// measured 3-12 % slower from 2^21 to 2^24 (PERF.md).
+template <int S, bool kHi = false>
 __global__ void __launch_bounds__(1024)
 render_spec_rows(const float2* __restrict__ spec,
                  const float* __restrict__ tau,
@@ -1848,7 +1845,7 @@ render_spec_rows(const float2* __restrict__ spec,
   float2* stw = palt::fft_shared();
   float2* lo = stw + (n2 >> 1);
   float2* hi = lo + n1;
-  float2* work = hi + n2;
+  float2* work = kHi ? hi : hi + n2;
   const int ld = row_ld<S>(n2);  // conflict-free half-warps
   const int n = n1 * n2;
   const int pm = blockIdx.y;
@@ -1861,7 +1858,8 @@ render_spec_rows(const float2* __restrict__ spec,
   const float* ta = tau + (size_t)ra * paths;
   const float* ga = gain + (size_t)ra * paths;
   stage_split_twiddles<split_where<S>()>(stw, tw, n1, n2, true);
-  stage_split_tables_of<split_where<S>()>(lo, hi, tw, n1, n2);
+  const auto hv = stage_split_lo_hi<kHi, split_where<S>()>(lo, hi, tw, n1,
+                                                            n2);
   const int tasks = pair_tasks<S>(b, n2);
   for (int t = threadIdx.x; t < tasks; t += blockDim.x) {
     const PairTask p = pair_task<S>(t, b, n1, n2, ld);
@@ -1873,15 +1871,15 @@ render_spec_rows(const float2* __restrict__ spec,
     store_pair(work, p, n, ya, yb);
   }
   palt::block_fft<S>(work, 1, ld, n2, stw, -1.0f);
-  store_rows<S>(work, z + (size_t)pm * n, lo, hi, b, n1, n2, ld);
+  store_rows<S>(work, z + (size_t)pm * n, lo, hv, b, n1, n2, ld);
 }
 
 // Render pass 3.  Grid (n2 / S column strips, packed mic rows): the
 // inverse column DFTs; sample n2*j1 + j2 goes back to the address the
 // strip read it from, which is its natural place.  S = kStrip (16)
-// columns, 8 at n1 = 2,048, 4 at 4,096 (``cuda_fft.spectra_plan``); the
-// strips below 16 (above 2^20) read the n1-point sub-twiddles from the
-// contiguous copy, as `boot_cols`.
+// columns, 8 at n1 = 2,048, 4 at 4,096, 2 at 8,192
+// (``cuda_fft.spectra_plan``); the strips below 16 (above 2^20) read the
+// n1-point sub-twiddles from the contiguous copy, as `boot_cols`.
 template <int S>
 __global__ void __launch_bounds__(1024)
 render_cols(int n1, int n2, const float2* __restrict__ tw, float2* z) {
@@ -2008,10 +2006,10 @@ __device__ __forceinline__ void arg_unkey(unsigned long long key, float& v,
 // The row's last block (counted in count) sums the partials in block
 // order and writes the statistics: no float atomics, so the result does
 // not depend on the order in which the blocks run.  S = kStrip (16)
-// columns a strip, 8 at n1 = 2,048, 4 at 4,096 (the spectra route's,
-// ``cuda_fft.spectra_plan``: up to 1,024 blocks a row at 2^24, whose
-// partials the last block sums in order); the strips below 16 read the
-// n1-point sub-twiddles from the contiguous copy.
+// columns a strip, 8 at n1 = 2,048, 4 at 4,096, 2 at 8,192 (the spectra
+// route's, ``cuda_fft.spectra_plan``: up to 4,096 blocks a row at 2^26,
+// whose partials the last block sums in order); the strips below 16 read
+// the n1-point sub-twiddles from the contiguous copy.
 template <int S>
 __global__ void __launch_bounds__(1024)
 window_cols(const float2* __restrict__ zc, int num_pairs, int couples,
@@ -2138,7 +2136,7 @@ cudaError_t render_split(const float* base, int scenes, int len,
   return render_cols_launch<kStrip>((rows + 1) / 2, n1, n2, tw, z, s);
 }
 
-// The render stage through the base rows' spectra (2^20 <= n <= 2^24, the
+// The render stage through the base rows' spectra (2^20 <= n <= 2^26, the
 // split n = n1 * n2), where `render_rows`' two strips do not fit: K4a's
 // two passes over the base rows (two scenes a packed row) into their half
 // spectra spec (scenes, n/2 + 1) through zb (ceil(scenes / 2), n; may be
@@ -2146,9 +2144,11 @@ cudaError_t render_split(const float* base, int scenes, int len,
 // `render_cols`, leaving in z (ceil(scenes * mics / 2), n) the unscaled
 // packed inverse of the mixes in natural order, as `render_split` does.
 // cs: the column passes' strip, s2: K4a's pass-2 strip, rs: the row
-// pass's.  Bound: device memory, the bases' read, K4a's packed rows out
-// and back, the spectra out and (a scene's once for each of its mic rows)
-// back, the packed mic rows out and back and the inverse's write.
+// pass's; at n2 = 8,192 K4a's first pass and the row pass read the
+// n2-point table from device memory (kHi, `with_split_strip`).  Bound:
+// device memory, the bases' read, K4a's packed rows out and back, the
+// spectra out and (a scene's once for each of its mic rows) back, the
+// packed mic rows out and back and the inverse's write.
 cudaError_t render_spectra(const float* base, int scenes, int len,
                            const float* tau, const float* gain, int mics,
                            int paths, int n, int n1, int cs, int s2, int rs,
@@ -2157,27 +2157,28 @@ cudaError_t render_spectra(const float* base, int scenes, int len,
   const int n2 = n / n1;
   const int rows = scenes * mics;
   const int packed = (rows + 1) / 2;
-  cudaError_t err = with_split_strip(cs, [&](auto strip) {
-    return cols_launch<decltype(strip)::value>(
+  cudaError_t err = with_split_strip(cs, n2, [&](auto strip, auto hi) {
+    return cols_launch<decltype(strip)::value, decltype(hi)::value>(
         RowLoad{base, scenes, len}, (scenes + 1) / 2, n1, n2, tw, zb, s);
   });
   if (err != cudaSuccess) return err;
   err = (cudaError_t)fft_real_rows_launch(zb, scenes, n1, n2, s2, tw, spec,
                                           s);
   if (err != cudaSuccess) return err;
-  err = with_split_strip(rs, [&](auto strip) {
+  err = with_split_strip<2>(rs, n2, [&](auto strip, auto hi) {
     constexpr int S = decltype(strip)::value;
-    const cudaError_t e = palt::allow_smem<render_spec_rows<S>>();
+    constexpr bool kHi = decltype(hi)::value;
+    const cudaError_t e = palt::allow_smem<render_spec_rows<S, kHi>>();
     if (e != cudaSuccess) return e;
-    render_spec_rows<S><<<dim3(n1 / S, packed), palt::fft_threads(n2, S),
-                          (n2 / 2 + n1 + n2 + S * row_ld<S>(n2)) *
-                              (int)sizeof(float2),
-                          s>>>(spec, tau, gain, rows, mics, paths, n1, n2,
-                               tw, z);
+    render_spec_rows<S, kHi>
+        <<<dim3(n1 / S, packed), palt::fft_threads(n2, S),
+           (n2 / 2 + n1 + (kHi ? 0 : n2) + S * row_ld<S>(n2)) *
+               (int)sizeof(float2),
+           s>>>(spec, tau, gain, rows, mics, paths, n1, n2, tw, z);
     return cudaGetLastError();
   });
   if (err != cudaSuccess) return err;
-  return with_split_strip(cs, [&](auto strip) {
+  return with_split_strip(cs, n2, [&](auto strip, auto) {
     return render_cols_launch<decltype(strip)::value>(packed, n1, n2, tw, z,
                                                       s);
   });
@@ -2278,8 +2279,8 @@ cudaError_t gcc_split(Load load, int scenes, int mics, const int* pairs_i,
 //      65,536): K4a's pass 1 over the mic rows; `gcc_rows`, which holds a
 //      strip of every packed mic row a scene spans and one more, (mics +
 //      1) / 2 + 1 strips; `corr_cols` (K1) or `window_cols` (K2, K5).
-// spectra (8,192 to 2^24 where `gcc_rows` does not fit, so at 2^20 to
-//      2^24 at any mic count):  K4a's two passes over the mic rows into
+// spectra (8,192 to 2^26 where `gcc_rows` does not fit, so at 2^20 to
+//      2^26 at any mic count):  K4a's two passes over the mic rows into
 //      their natural-order spectra (scenes * mics, n/2 + 1); `corr_rows`
 //      with `PairIndexLoad`, which reads rows scene * mics + pairs_i[p]
 //      and scene * mics + pairs_j[p] of them into the packed cross rows
@@ -2290,7 +2291,7 @@ cudaError_t gcc_split(Load load, int scenes, int mics, const int* pairs_i,
 //      `fft_real_block` into the spectra; `corr_block` with
 //      `PairIndexLoad`, a block a packed cross row, and K1's (`CorrOut`)
 //      or K2's (`WindowOut`) epilogue.
-// passes (above 2^24):  the radix-2 passes through device memory.
+// passes (above 2^26):  the radix-2 passes through device memory.
 //
 // K9:  `corr_rows` with `RowPairLoad` (rows 2c and 2c + 1 of a and b),
 //      `corr_cols`; `corr_block` with `RowPairLoad` up to 4,096.
@@ -2302,7 +2303,9 @@ cudaError_t gcc_split(Load load, int scenes, int mics, const int* pairs_i,
 // the real part to pair 2c and the imaginary part to pair 2c + 1.  The
 // strips are ``cuda_fft.spectra_plan``'s: 16 columns and 16 rows up
 // to 1,024 x 1,024, 8 columns at n1 = 2,048 and 8 rows at n2 = 2,048, 4
-// rows at n2 = 4,096 (2^23) and 4 columns at n1 = 4,096 (2^24).
+// rows at n2 = 4,096 (2^23) and 4 columns at n1 = 4,096 (2^24, 2^25), 2
+// rows at n2 = 8,192 (2^25, 2^26; the n2-point table read from device
+// memory) and 2 columns at n1 = 8,192 (2^26).
 // Bound: device memory (the rows' read and the correlations' or windows'
 // write, plus on the split one write and one read of each packed buffer a
 // pass, and the spectra on the spectra routes) and, in the row passes,
@@ -2408,12 +2411,14 @@ struct PairIndexLoad {
 // natural-order spectra (one task a mirror pair, `pair_task`, so that
 // reads run over consecutive bins), then the inverse row DFTs and the
 // conjugate twiddle into zc.  S = 16 rows a strip, 8 at n2 = 2,048 (172
-// KB), 4 at 4,096 (192-208 KB), at the bank-spread stride `row_ld`.
-// Above 2^20 the tables come from the contiguous copies
-// (`stage_split_tables_of`).  Where keys is not null (K2's and K5's
-// spectra route), block (0, c) clears row c's two argmax keys and its
-// block counter for `window_cols`.
-template <int kMaxThreads, int kMinBlocks, int S, class Load>
+// KB), 4 at 4,096 (192-208 KB), 2 at 8,192 (one row k1 and its partner;
+// with kHi, hi read from device memory: 192-224 KB), at the bank-spread
+// stride `row_ld`.  Above 2^20 the tables come from the contiguous copies
+// (`stage_split_lo_hi`).  Where keys is not null (K2's and K5's spectra
+// route), block (0, c) clears row c's two argmax keys and its block
+// counter for `window_cols`.
+template <int kMaxThreads, int kMinBlocks, int S, class Load,
+          bool kHi = false>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 corr_rows(Load load, const float* __restrict__ band, float eps, int n1,
           int n2, const float2* __restrict__ tw, float2* __restrict__ zc,
@@ -2422,7 +2427,7 @@ corr_rows(Load load, const float* __restrict__ band, float eps, int n1,
   float2* stw = palt::fft_shared();
   float2* lo = stw + (n2 >> 1);
   float2* hi = lo + n1;
-  float2* work = hi + n2;
+  float2* work = kHi ? hi : hi + n2;
   const int ld = row_ld<S>(n2);  // conflict-free half-warps
   const int n = n1 * n2;
   const int c = blockIdx.y;
@@ -2433,7 +2438,8 @@ corr_rows(Load load, const float* __restrict__ band, float eps, int n1,
   }
   const CorrPair src = load.pair(c, (size_t)(n >> 1) + 1);
   stage_split_twiddles<split_where<S>()>(stw, tw, n1, n2, true);
-  stage_split_tables_of<split_where<S>()>(lo, hi, tw, n1, n2);
+  const auto hv = stage_split_lo_hi<kHi, split_where<S>()>(lo, hi, tw, n1,
+                                                            n2);
   const int tasks = pair_tasks<S>(blk, n2);
   for (int t = threadIdx.x; t < tasks; t += blockDim.x) {
     const PairTask p = pair_task<S>(t, blk, n1, n2, ld);
@@ -2448,26 +2454,28 @@ corr_rows(Load load, const float* __restrict__ band, float eps, int n1,
     store_pair(work, p, n, r0, r1);
   }
   palt::block_fft<S>(work, 1, ld, n2, stw, -1.0f);
-  store_rows<S>(work, zc + (size_t)c * n, lo, hi, blk, n1, n2, ld);
+  store_rows<S>(work, zc + (size_t)c * n, lo, hv, blk, n1, n2, ld);
 }
 
 // Pass 2 over `rows_c` packed cross rows of load into zc, strips of rs
-// rows (16, 8 or 4; fft_threads(n2, S) threads, 1,024 from 2^20: 512
+// rows (16, 8, 4 or 2; fft_threads(n2, S) threads, 1,024 from 2^20: 512
 // threads of twice the points measured 3-12 % slower from 2^21 to 2^24,
-// PERF.md); at n2 <= 256 (16 rows) two blocks an SM, as K4b's.  keys and
-// count: K2's (null for K1 and K9).
+// PERF.md; the n2-point table in device memory at n2 = 8,192, kHi); at
+// n2 <= 256 (16 rows) two blocks an SM, as K4b's.  keys and count: K2's
+// (null for K1 and K9).
 template <class Load>
 cudaError_t corr_rows_launch(Load load, int rows_c, const float* band,
                              float eps, int n1, int n2, int rs,
                              const float2* tw, float2* zc,
                              unsigned long long* keys, unsigned int* count,
                              cudaStream_t s) {
-  return with_split_strip(rs, [&](auto strip) {
+  return with_split_strip<2>(rs, n2, [&](auto strip, auto hi) {
     constexpr int S = decltype(strip)::value;
+    constexpr bool kHi = decltype(hi)::value;
     const dim3 grid(n1 / S, rows_c);
     const int threads = palt::fft_threads(n2, S);
-    const int smem =
-        (n2 / 2 + n1 + n2 + S * row_ld<S>(n2)) * (int)sizeof(float2);
+    const int smem = (n2 / 2 + n1 + (kHi ? 0 : n2) + S * row_ld<S>(n2)) *
+                     (int)sizeof(float2);
     cudaError_t err;
     if constexpr (S == palt::kStrip) {
       if (n2 <= 256) {
@@ -2478,9 +2486,9 @@ cudaError_t corr_rows_launch(Load load, int rows_c, const float* band,
         return cudaGetLastError();
       }
     }
-    err = palt::allow_smem<corr_rows<1024, 1, S, Load>>();
+    err = palt::allow_smem<corr_rows<1024, 1, S, Load, kHi>>();
     if (err != cudaSuccess) return err;
-    corr_rows<1024, 1, S, Load><<<grid, threads, smem, s>>>(
+    corr_rows<1024, 1, S, Load, kHi><<<grid, threads, smem, s>>>(
         load, band, eps, n1, n2, tw, zc, keys, count);
     return cudaGetLastError();
   });
@@ -2867,14 +2875,16 @@ cudaError_t gcc_all_split(const float* x, int scenes, int mics, int len,
   return corr_cols_launch(zc, scenes, num_pairs, n1, n2, tw, out, s);
 }
 
-// The spectra route's first three launches (8,192 <= n <= 2^24): K4a's
+// The spectra route's first three launches (8,192 <= n <= 2^26): K4a's
 // two passes over the mic rows given by load (rows scene * mics + mic)
 // into their natural-order spectra spec (scenes * mics, n/2 + 1) through
 // zm (ceil(scenes * mics / 2), n; may be the loader's buffer), then
 // `corr_rows` with `PairIndexLoad` into the pairs' packed cross rows zc
 // (scenes * couples, n; may be zm, which is dead by then).  keys and
 // count are K2's (null for K1).  cs: the column passes' strip, s2: K4a's
-// pass-2 strip, rs: the row pass's.
+// pass-2 strip, rs: the row pass's; at n2 = 8,192 K4a's first pass and
+// the row pass read the n2-point table from device memory (kHi,
+// `with_split_strip`).
 template <class Load>
 cudaError_t spectra_cross(Load load, int scenes, int mics, const int* pairs_i,
                           const int* pairs_j, int num_pairs,
@@ -2884,9 +2894,9 @@ cudaError_t spectra_cross(Load load, int scenes, int mics, const int* pairs_i,
                           unsigned int* count, cudaStream_t s) {
   const int n2 = n / n1;
   const int rows = scenes * mics;
-  cudaError_t err = with_split_strip(cs, [&](auto strip) {
-    return cols_launch<decltype(strip)::value>(load, (rows + 1) / 2, n1, n2,
-                                               tw, zm, s);
+  cudaError_t err = with_split_strip(cs, n2, [&](auto strip, auto hi) {
+    return cols_launch<decltype(strip)::value, decltype(hi)::value>(
+        load, (rows + 1) / 2, n1, n2, tw, zm, s);
   });
   if (err != cudaSuccess) return err;
   err = (cudaError_t)fft_real_rows_launch(zm, rows, n1, n2, s2, tw, spec, s);
@@ -2949,7 +2959,7 @@ cudaError_t window_route(Load load, int route, int scenes, int mics,
       spectra_cross(load, scenes, mics, pairs_i, pairs_j, num_pairs, band,
                     eps, n, n1, cs, s2, rs, tw, zm, spec, zc, keys, count, s);
   if (err != cudaSuccess) return err;
-  return with_split_strip(cs, [&](auto strip) {
+  return with_split_strip(cs, n / n1, [&](auto strip, auto) {
     return window_cols_launch<decltype(strip)::value>(
         zc, scenes, num_pairs, n1, n / n1, wq, tw, win, stats, part, keys,
         count, s);
@@ -2967,7 +2977,7 @@ cudaError_t corr_split(const float2* a, const float2* b, int rows,
       corr_rows_launch(RowPairLoad{a, b, rows}, (rows + 1) / 2, band, eps, n1,
                        n2, rs, tw, zc, nullptr, nullptr, s);
   if (err != cudaSuccess) return err;
-  return with_split_strip(cs, [&](auto strip) {
+  return with_split_strip(cs, n2, [&](auto strip, auto) {
     return corr_cols_launch<decltype(strip)::value>(zc, 1, rows, n1, n2, tw,
                                                     out, s);
   });
@@ -3121,10 +3131,11 @@ int palt_fft_real(const float* x, int rows, int len, int n, int n1, int cs,
     return (int)fft_real_block_launch(RowLoad{x, rows, len}, rows, n, tw, out,
                                       s);
   const int n2 = n / n1;
-  const cudaError_t err = with_long_strip(cs, n2, [&](auto strip, auto hi) {
-    return cols_launch<decltype(strip)::value, decltype(hi)::value>(
-        RowLoad{x, rows, len}, packed, n1, n2, tw, buf, s);
-  });
+  const cudaError_t err =
+      with_split_strip(cs, n2, [&](auto strip, auto hi) {
+        return cols_launch<decltype(strip)::value, decltype(hi)::value>(
+            RowLoad{x, rows, len}, packed, n1, n2, tw, buf, s);
+      });
   if (err != cudaSuccess) return (int)err;
   return fft_real_rows_launch(buf, rows, n1, n2, s2, tw, out, s);
 }
@@ -3176,7 +3187,7 @@ int palt_gcc_all_pairs(const float* x, int scenes, int mics, int len, int n,
         load, scenes, mics, pairs_i, pairs_j, num_pairs, band, eps, n, n1, cs,
         s2, rs, tw, spec0, spec1, z0, nullptr, nullptr, s);
     if (err != cudaSuccess) return (int)err;
-    return (int)with_split_strip(cs, [&](auto strip) {
+    return (int)with_split_strip(cs, n / n1, [&](auto strip, auto) {
       return corr_cols_launch<decltype(strip)::value>(z0, scenes, num_pairs,
                                                       n1, n / n1, tw, out, s);
     });
@@ -3305,7 +3316,7 @@ int palt_whiten(const float2* z, long long count, float eps, float2* out,
 // scaled by 1/n (K1's back half with arbitrary row pairs).  n1 = 1: one
 // block a packed row (`corr_block`), no buffer; n1 > 1: the two launches of
 // the split n = n1 * n2 through z0, strips of cs columns and rs rows (16,
-// 8 or 4 each); n1 = 0: the radix-2 passes (n > 2^24) through z0 / z1.
+// 8, 4 or 2 each); n1 = 0: the radix-2 passes (n > 2^26) through z0 / z1.
 int palt_whitened_corr(const float2* a, const float2* b, int rows, int n,
                        int n1, int cs, int rs, const float* band, float eps,
                        const float2* tw, float2* z0, float2* z1, float* out,

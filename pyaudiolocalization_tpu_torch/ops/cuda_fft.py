@@ -18,9 +18,9 @@ delay_sum             bfly_delay_sum (:1851)                 memory: 1 to 8*
 whiten                pallas_kernels.phat_whiten_planes (:34) memory: 16 B/bin
 ===================== ====================================== ==================
 
-(*) Above 2^24 points K9, K1, K2, K3 and K5 run the radix-2 passes, K4a,
-K4b and K6 above 2^26 (K4a: the packing, log2(nfft) passes and the split
-into the two spectra, 2 + log2(nfft) launches).  K1, K2 and K5's GCC
+(*) Above 2^26 points every transforming kernel runs the radix-2 passes
+(K4a: the packing, log2(nfft) passes and the split into the two spectra,
+2 + log2(nfft) launches).  K1, K2 and K5's GCC
 take one route a shape (``gcc_route``): 1 launch in one block a scene,
 3 with ``gcc_rows``, 4 through the mic rows' spectra on the split, 2
 through them in one block.
@@ -46,13 +46,13 @@ and the GCCs' ``gcc_rows`` routes run it forward and back in three, the
 middle launch holding rows for both directions; K9, whose input is
 spectra, in two; the GCCs' spectra route K4a's two, then K9's two with a
 pair-indexed loader, and the render's K4a's two into the base rows'
-spectra, then a mix row pass and the column pass; up to 2^24 for all of
-them and to 2^26 for K4a, K4b and K6, whose strips narrow to 8 at 2,048,
-to 4 at 4,096 and to 2 at 8,192, ``split_strips``, and whose column and
-row passes read the n2-point table from device memory at 8,192
-(``split_hi_points``); ``split_plan`` gives each launch of K4a's, K4b's
-and K6's, ``spectra_plan`` each of the spectra routes', with the row
-strips' bank-spread stride), so a transform reads
+spectra, then a mix row pass and the column pass; up to 2^26 for all of
+them, whose strips narrow to 8 at 2,048, to 4 at 4,096 and to 2 at
+8,192, ``split_strips``, and whose first column pass and row passes read
+the n2-point table from device memory at 8,192 (``split_hi_points``);
+``split_plan`` gives each launch of K4a's, K4b's and K6's,
+``spectra_plan`` each of the spectra routes', with the row strips'
+bank-spread stride), so a transform reads
 and writes each point once per launch (16 bytes a complex point) and is
 bound by device memory at that.  Up to 4,096 points the bootstraps, K9,
 the render (a packed base row a block) and the all-pairs and windowed
@@ -62,7 +62,7 @@ K3 is one launch there, K2 one or two and K5 two or three.  The others
 run radix-2 Stockham passes over rows in device memory, one launch and
 16 bytes a point per pass, about 16·log2(nfft) bytes per point and
 transform, and fuse their first or last pass into a prologue or
-epilogue: K9, K1, K2, K3 and K5 above 2^24, K4a, K4b and K6 above 2^26.
+epilogue: every transforming kernel above 2^26 only.
 The design keeps the rest of the work out of device memory where the TPU
 kernels did: real rows are packed two to a complex transform, the whitening /
 ramp synthesis runs in one pass over the spectra, two real results share
@@ -72,8 +72,9 @@ writing the correlation.  The TPU kernels' bit-reversed (N2, 128) plane
 layout is not carried over: spectra are in natural order.  The
 all-pairs GCC, render, windowed-GCC and scene kernels take a leading
 scene axis; a launch covers every scene, and a batch beyond the grids'
-65,535 rows launches over scene chunks (``scene_chunk``, one rule for the
-four kernels).  K4a, K4b, K6 and K9 take a batch of rows beyond their
+65,535 rows, or whose scratch would pass ``SPLIT_SCRATCH_BYTES``,
+launches over scene chunks (``scene_chunk``, one rule for the four
+kernels).  K4a, K4b, K6 and K9 take a batch of rows beyond their
 grids in chunks of ``ROW_CHUNK`` rows, K4a, K4b and K6 also in chunks
 whose scratch stays within ``SPLIT_SCRATCH_BYTES`` (``_launch_rows``).
 Measurement noise and the noise-null bootstrap's rows come from a
@@ -108,12 +109,12 @@ from . import signal as sig_ops
 
 PHAT_EPS = 1e-10
 # K4a: one block holds the packed row up to FFT_REAL_ONE_BLOCK; the
-# four-step split of two on-chip transforms reaches 4096 x 4096
-# (SPECTRA_SPLIT_MAX, 2^24) for the spectra routes of K9, K1, K2, K3 and
-# K5 and 8192 x 8192 (FFT_SPLIT_MAX, 2^26) for K4a, K4b and K6, with
-# strips of 8 at 2,048, of 4 at 4,096 and of 2 at 8,192
-# (``split_strips``); where n2 passes SPLIT_HI_SHARED_MAX (2^25, 2^26) the
-# split kernels read the n2-point table from device memory instead of
+# four-step split of two on-chip transforms reaches 8192 x 8192
+# (FFT_SPLIT_MAX, 2^26) for every transforming kernel (K4a, K4b, K6 and
+# the spectra routes of K9, K1, K2, K3 and K5), with strips of 8 at
+# 2,048, of 4 at 4,096 and of 2 at 8,192 (``split_strips``); where n2
+# passes SPLIT_HI_SHARED_MAX (2^25, 2^26) the split's row passes and its
+# first column pass read the n2-point table from device memory instead of
 # shared memory (``split_hi_points``); the split's long side is its
 # columns (n1 >= n2) up to SPLIT_COLS_LONG_MAX and its contiguous rows
 # above (``fft_real_split``); the row passes that hold more than one strip
@@ -123,7 +124,6 @@ PHAT_EPS = 1e-10
 # through its base rows' (``render_route``).
 FFT_REAL_ONE_BLOCK = 4096
 SPLIT_COLS_LONG_MAX = 1 << 22
-SPECTRA_SPLIT_MAX = 1 << 24
 FFT_SPLIT_MAX = 1 << 26
 SPLIT_HI_SHARED_MAX = 4096
 STAGE_SPLIT_MAX = 1 << 20
@@ -159,7 +159,9 @@ _MAX_GRID_Y = 65535
 ROW_CHUNK = 2 * _MAX_GRID_Y
 # The scratch one launch of K4a, K4b or K6 may take (``_launch_rows``):
 # 1,000 rows at 2^22 on the split (16.8 GB) keep one launch; 512 rows a
-# launch at 2^23, 256 at 2^24, 128 at 2^25 and 64 at 2^26.
+# launch at 2^23, 256 at 2^24, 128 at 2^25 and 64 at 2^26.  The same cap
+# holds a launch of K1, K2, K3 or K5 (``scene_chunk``): 12 scenes of 4
+# mics at 2^25, 6 at 2^26.
 SPLIT_SCRATCH_BYTES = 16 << 30
 _lib: Optional[ctypes.CDLL] = None
 
@@ -377,6 +379,12 @@ def _split_n1(nfft: int) -> int:
     return fft_real_split(nfft)[0] if nfft <= FFT_SPLIT_MAX else 0
 
 
+# K9's schedule is K4a's: one block a packed row (``corr_block``), the
+# split (the spectra routes' last two launches, ``spectra_plan``) or the
+# radix-2 passes.
+corr_schedule = _split_n1
+
+
 def _split_strips(n1: int, nfft: int):
     """The strips K4a's, K4b's and K6's schedule n1 passes to its entry
     point: ``split_strips`` on the split, (0, 0) (unused) elsewhere."""
@@ -424,11 +432,10 @@ def fft_real_split(nfft: int):
     2^22, where the strips narrow to 8 (``split_strips``); above, the long
     side goes to the contiguous rows, n1 = 2^floor(log2(nfft) / 2) <= n2:
     2048 x 4096 at 2^23 (column strips of 8 still read 64 bytes a row, row
-    strips of 4), 4096 x 4096 at 2^24 (``SPECTRA_SPLIT_MAX``, strips of
-    4), 4096 x 8192 at 2^25 (4 columns, 2 rows) and 8192 x 8192 at
-    ``FFT_SPLIT_MAX`` (2^26, strips of 2).  ``SPLIT_COLS_LONG_MAX`` picks
-    only that orientation: K4a, K4b and K6 run the split up to
-    ``FFT_SPLIT_MAX``, the spectra routes up to ``SPECTRA_SPLIT_MAX``."""
+    strips of 4), 4096 x 4096 at 2^24 (strips of 4), 4096 x 8192 at 2^25
+    (4 columns, 2 rows) and 8192 x 8192 at ``FFT_SPLIT_MAX`` (2^26,
+    strips of 2).  ``SPLIT_COLS_LONG_MAX`` picks only that orientation:
+    every transforming kernel runs the split up to ``FFT_SPLIT_MAX``."""
     if nfft <= FFT_REAL_ONE_BLOCK:
         return 1, nfft
     short = 1 << ((nfft.bit_length() - 1) // 2)
@@ -454,11 +461,12 @@ def fft_real_rows_strip(n2: int, packed: int) -> int:
 
 
 def split_hi_points(n2: int) -> int:
-    """Points of the split's n2-point table ``hi`` that a split kernel of
-    K4a, K4b or K6 stages in shared memory: n2 up to
-    ``SPLIT_HI_SHARED_MAX`` (4,096: every shape up to 2^24), else none
-    (2^25, 2^26: ``fft_real_cols`` and ``boot_rows`` read it from the
-    contiguous n2-point half table of ``_twiddles`` in device memory)."""
+    """Points of the split's n2-point table ``hi`` that a split kernel
+    stages in shared memory: n2 up to ``SPLIT_HI_SHARED_MAX`` (4,096:
+    every shape up to 2^24), else none (2^25, 2^26: the first column pass
+    ``fft_real_cols`` and the row passes ``boot_rows``, ``corr_rows`` and
+    ``render_spec_rows`` read it from the contiguous n2-point half table
+    of ``_twiddles`` in device memory)."""
     return n2 if n2 <= SPLIT_HI_SHARED_MAX else 0
 
 
@@ -574,21 +582,21 @@ class SpectraPlan(NamedTuple):
 
 def spectra_plan(nfft: int, packed: int = 1) -> SpectraPlan:
     """Each launch of the spectra routes at nfft (8,192 to
-    ``SPECTRA_SPLIT_MAX``, 2^24) for ``packed`` packed rows in K4a's
-    passes: K4a's
-    two (``split_plan``'s ``cols`` and ``rows``); the row pass, one strip
-    of ``split_strips``' rows at the bank-spread stride ``row_ld`` with
-    the n1- and n2-point tables (n2/2 + n1 + n2 complex, the bytes of
-    ``boot_rows``); the column pass, ``split_strips``' columns and the
-    n1/2 sub-twiddles (``window_cols`` adds 257 static bytes).  Above
-    2^20 these kernels read their tables from the contiguous copies of
-    ``_twiddles``; the row pass keeps ``fft_threads`` = 1,024 threads a
-    block there (512 of twice the points, as ``boot_rows``, measured 3-12
-    % slower on an H100; PERF.md).  Their kernels hold both tables in
-    shared memory, so they stop at 2^24, where K4a's own split goes on."""
-    if nfft > SPECTRA_SPLIT_MAX:
-        raise ValueError(f"spectra_plan: nfft {nfft} is past the spectra "
-                         f"routes' split (2^24)")
+    ``FFT_SPLIT_MAX``, 2^26) for ``packed`` packed rows in K4a's passes:
+    K4a's two (``split_plan``'s ``cols`` and ``rows``); the row pass, one
+    strip of ``split_strips``' rows at the bank-spread stride ``row_ld``
+    with the n1-point table and the n2-point one where it stays in shared
+    memory (n2/2 + n1 + ``split_hi_points`` complex, the bytes of
+    ``boot_rows``: 196,736 / 229,504 bytes at 2^25 / 2^26, strips of 2
+    rows, the n2-point table read from device memory); the column pass,
+    ``split_strips``' columns and the n1/2 sub-twiddles (``window_cols``
+    adds 257 static bytes; 4 columns at n1 = 4,096, 147,456 bytes, and 2
+    at 8,192, 163,840).  Above 2^20 these kernels read their tables from
+    the contiguous copies of ``_twiddles``; the row pass keeps
+    ``fft_threads`` = 1,024 threads a block there (512 of twice the
+    points, as ``boot_rows``, measured 3-12 % slower on an H100;
+    PERF.md).  Above 2^26 ``split_plan`` raises: the spectra routes run
+    the radix-2 passes there, as every transforming kernel."""
     plan = split_plan(nfft, packed)
     n1, n2 = fft_real_split(nfft)
     cs = plan.cols.strip
@@ -634,18 +642,19 @@ def gcc_route(nfft: int, mics: int) -> GccRoute:
       each packed mic row a scene's mics can span ((mics + 1) // 2) and
       one for the output, fit one block's shared memory (``SMEM_OPTIN``);
       never at 2^20, where two strips of 16 x 1,025 points pass it;
-    - elsewhere up to ``SPECTRA_SPLIT_MAX`` (2^24), the split through the mic
+    - elsewhere up to ``FFT_SPLIT_MAX`` (2^26), the split through the mic
       rows' spectra at any mic count (K4a's two passes, ``corr_rows`` with
       the pair-indexed loader, ``corr_cols`` or ``window_cols``), with the
       strips of ``spectra_plan``: 16 and 16 up to 2^20, 8 columns from n1
-      = 2,048 and 8 rows at n2 = 2,048, 4 rows at n2 = 4,096 (2^23) and 4
-      columns at n1 = 4,096 (2^24);
+      = 2,048 and 8 rows at n2 = 2,048, 4 rows at n2 = 4,096 (2^23), 4
+      columns at n1 = 4,096 (2^24, 2^25), 2 rows at n2 = 8,192 (2^25,
+      2^26) and 2 columns at n1 = 8,192 (2^26);
     - the radix-2 passes above, as every transforming kernel."""
     if nfft <= FFT_REAL_ONE_BLOCK:
         if _gcc_block_smem(nfft, mics) <= SMEM_OPTIN:
             return GccRoute(ROUTE_BLOCK, 1, 0, 0)
         return GccRoute(ROUTE_SPECTRA_BLOCK, 1, 0, 0)
-    if nfft > SPECTRA_SPLIT_MAX:
+    if nfft > FFT_SPLIT_MAX:
         return GccRoute(ROUTE_PASSES, 0, 0, 0)
     n1, n2 = fft_real_split(nfft)
     if (nfft <= STAGE_SPLIT_MAX
@@ -673,19 +682,20 @@ def render_route(nfft: int) -> GccRoute:
       row's) fit one block's shared memory (``SMEM_OPTIN``: to 2^19),
       the four-step split nfft = n1 * n2 of ``fft_real_split`` with
       ``render_rows`` (``ROUTE_ROWS``);
-    - elsewhere up to ``SPECTRA_SPLIT_MAX`` (2^24), the split through the base
-      rows' spectra (``ROUTE_SPECTRA``): K4a's two passes, the one-strip
-      mix row pass ``render_spec_rows`` and ``render_cols``, with the
-      strips of ``spectra_plan`` (16 and 16 at 2^20, 8 columns from n1 =
-      2,048 and 8 rows at n2 = 2,048, 4 rows at n2 = 4,096 and 4 columns
-      at n1 = 4,096);
+    - elsewhere up to ``FFT_SPLIT_MAX`` (2^26), the split through the
+      base rows' spectra (``ROUTE_SPECTRA``): K4a's two passes, the
+      one-strip mix row pass ``render_spec_rows`` and ``render_cols``,
+      with the strips of ``spectra_plan`` (16 and 16 at 2^20, 8 columns
+      from n1 = 2,048 and 8 rows at n2 = 2,048, 4 rows at n2 = 4,096, 4
+      columns at n1 = 4,096, 2 rows at n2 = 8,192 and 2 columns at n1 =
+      8,192);
     - the radix-2 passes above (n1 = 0), as every transforming kernel.
 
     The mic count does not enter: the render's row passes hold one or two
     strips at any mic count."""
     if nfft <= FFT_REAL_ONE_BLOCK:
         return GccRoute(ROUTE_BLOCK, 1, 0, 0)
-    if nfft > SPECTRA_SPLIT_MAX:
+    if nfft > FFT_SPLIT_MAX:
         return GccRoute(ROUTE_PASSES, 0, 0, 0)
     n1, n2 = fft_real_split(nfft)
     if _row_pass_smem(n1, n2, 2) <= SMEM_OPTIN:
@@ -698,7 +708,7 @@ def scene_stages(nfft: int, mics: int):
     scene at nfft: the n1 of ``render_route`` and of ``gcc_route``, the
     routes of K3's render and of K2's windowed GCC (K5 runs each stage as
     K3 and K2 run it).  Both 1 up to 4,096, the split's n1 from 8,192 to
-    2^24, 0 (the radix-2 passes) above."""
+    2^26, 0 (the radix-2 passes) above."""
     return render_route(nfft).n1, gcc_route(nfft, mics).n1
 
 
@@ -713,18 +723,6 @@ def finish_groups(nfft: int, rows: int) -> int:
     if render_route(nfft).kind != ROUTE_SPECTRA or rows >= FINISH_SMS:
         return 1
     return min(FINISH_MAX_GROUPS, -(-FINISH_BLOCKS // ((rows + 1) // 2)))
-
-
-def corr_schedule(nfft: int) -> int:
-    """n1 of K9's schedule at nfft, K4a's (``_split_n1``) up to the spectra
-    routes' limit: 1, one block a packed row (``corr_block``), up to
-    ``FFT_REAL_ONE_BLOCK``; the four-step split of ``fft_real_split`` up
-    to ``SPECTRA_SPLIT_MAX`` (2^24;
-    the spectra routes' last two launches, ``spectra_plan``: its row pass
-    holds one strip, of 16 rows, 8 at n2 = 2,048 or 4 at 4,096, and its
-    column pass strips of 16 columns, 8 at n1 = 2,048 or 4 at 4,096); 0,
-    the radix-2 passes, above."""
-    return _split_n1(nfft) if nfft <= SPECTRA_SPLIT_MAX else 0
 
 
 def _copies(n1: int) -> int:
@@ -873,13 +871,14 @@ def whitened_corr(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
     row (bins 0..n/2, mirrored, real DC and Nyquist), the packed inverse,
     1/n and the split into the two rows.  By length (``corr_schedule``):
     up to ``FFT_REAL_ONE_BLOCK`` (4,096) one launch, a block per packed row
-    holding it in shared memory, no scratch; up to ``SPECTRA_SPLIT_MAX`` (2^24)
-    two launches over one scratch buffer on K4b's four-step split — a row
-    pass that gathers each strip's bins of ``a`` and ``b``, whitens and
-    runs the inverse row DFTs, and K1's column pass, whose inverse column
-    DFTs write the rows in natural order (the spectra routes' last two
-    launches, ``spectra_plan``: strips of 16 rows and columns, 8 at 2,048,
-    4 at 4,096); above, the radix-2 passes.
+    holding it in shared memory, no scratch; up to ``FFT_SPLIT_MAX``
+    (2^26) two launches over one scratch buffer on K4b's four-step split
+    — a row pass that gathers each strip's bins of ``a`` and ``b``,
+    whitens and runs the inverse row DFTs, and K1's column pass, whose
+    inverse column DFTs write the rows in natural order (the spectra
+    routes' last two launches, ``spectra_plan``: strips of 16 rows and
+    columns, 8 at 2,048, 4 at 4,096, 2 at 8,192, where the row pass reads
+    the n2-point table from device memory); above, the radix-2 passes.
     Bound by device memory (the spectra's read, the rows' write, one
     write and one read of the packed buffer on the split); a single pair's
     call by its launches' latency.  A batch beyond ``ROW_CHUNK`` row
@@ -930,21 +929,48 @@ def gcc_all_pairs_plain(signals: torch.Tensor, pairs_i: Sequence[int],
     return torch.fft.irfft(white, n=nfft)
 
 
-def scene_chunk(scenes: int, mics: int, num_pairs: int = 0) -> int:
+def _scene_bytes(nfft: int, mics: int, couples: int) -> int:
+    """Bytes of scratch one scene of ``mics`` mics and ``couples`` pair
+    couples holds in a launch of K1, K2, K3 or K5 at nfft, the most of the
+    four (``_gcc_buffers``, ``_render_buffers``, ``scene_windowed``'s), in
+    half packed rows of nfft complex points: none up to
+    ``FFT_REAL_ONE_BLOCK``; on the split (to ``FFT_SPLIT_MAX``) the mic
+    rows' (mics) or the cross rows' (2 couples), whichever is more, and
+    the spectra of every mic row (mics); on the radix-2 passes two copies
+    each of the base rows' (1), the mic rows' and the cross rows'.  A
+    4-mic scene: 1.34 GB at 2^25, 2.68 GB at 2^26."""
+    if nfft <= FFT_REAL_ONE_BLOCK:
+        return 0
+    if nfft <= FFT_SPLIT_MAX:
+        halves = max(mics, 2 * couples) + mics
+    else:
+        halves = 2 * (1 + mics + 2 * couples)
+    return halves * nfft * 4
+
+
+def scene_chunk(scenes: int, mics: int, num_pairs: int, nfft: int) -> int:
     """Scenes per launch of K1, K2, K3 and K5, one rule for all four:
     every grid's y extent stays within 65,535 — the packed base rows
     ((chunk + 1) / 2), the packed mic rows ((chunk * mics + 1) / 2), the
     scenes of a GCC row pass (chunk) and the pair couples (chunk *
-    couples).  The couples are those of the larger of ``num_pairs`` and
-    the all-pairs count M (M - 1) / 2, so that K3, which has no pairs,
-    chunks as K2 and K5 do over all pairs of the same scenes, and the
-    sweep's fused and split paths stay equal to the bit.  A chunk short of
-    ``scenes`` is even, so that rows pack two to a transform (the bases,
-    and the mic rows of an odd mic count, across scenes) as one launch
-    over every scene packs them; each scene's noise comes from its own
-    seed words, so a chunk draws what one launch would."""
+    couples) — and the scenes' scratch at nfft within
+    ``SPLIT_SCRATCH_BYTES`` (``_scene_bytes``; at least 2 scenes), as
+    ``_launch_rows`` caps K4a's, K4b's and K6's rows: 12 scenes of 4 mics
+    at 2^25, 6 at 2^26 (from 2^15 the cap binds before the grids' limit:
+    13,106 scenes of 4 mics at 2^15, 408 at 2^20).  The couples are those of the larger of
+    ``num_pairs`` and the all-pairs count M (M - 1) / 2, so that K3, which
+    has no pairs, chunks as K2 and K5 do over all pairs of the same
+    scenes, and the sweep's fused and split paths stay equal to the bit.
+    A chunk short of ``scenes`` is even, so that rows pack two to a
+    transform (the bases, and the mic rows of an odd mic count, across
+    scenes) as one launch over every scene packs them; each scene's noise
+    comes from its own seed words, so a chunk draws what one launch
+    would."""
     couples = max(1, (max(num_pairs, mics * (mics - 1) // 2) + 1) // 2)
     limit = min(_MAX_GRID_Y // couples, 2 * _MAX_GRID_Y // max(mics, 1))
+    per_scene = _scene_bytes(nfft, mics, couples)
+    if per_scene:
+        limit = min(limit, max(2, SPLIT_SCRATCH_BYTES // per_scene))
     return scenes if scenes <= limit else limit - limit % 2
 
 
@@ -973,7 +999,7 @@ def gcc_all_pairs(signals: torch.Tensor, pairs_i: Sequence[int],
       row; per couple the cross-spectra and the inverse row DFTs), and a
       column pass whose inverse column DFTs write the correlations in
       natural order;
-    - the spectra (8,192 to ``SPECTRA_SPLIT_MAX``, 2^24, where ``gcc_rows``
+    - the spectra (8,192 to ``FFT_SPLIT_MAX``, 2^26, where ``gcc_rows``
       does not fit, at any mic count; every mic count from 2^20 on): four
       launches — K4a's two passes write the mic rows' natural-order
       spectra (scenes * M, nfft/2 + 1), K9's row pass reads rows scene * M
@@ -981,15 +1007,17 @@ def gcc_all_pairs(signals: torch.Tensor, pairs_i: Sequence[int],
       loader) into the packed cross rows, and the column pass as above;
       the strips are ``spectra_plan``'s (16 columns and rows up to 2^20; 8
       columns, 16 rows at 2^21 and 8 at 2^22; 8 and 4 at 2^23; 4 and 4 at
-      2^24), and the cross rows reuse K4a's packed buffer;
+      2^24; 4 and 2 at 2^25; 2 and 2 at 2^26), and the cross rows reuse
+      K4a's packed buffer;
     - the spectra block (nfft <= 4,096 beyond 10 mics; 24 at 2,048): two
       launches, K4a's one-block transform of every mic row into the
       spectra, then K9's one-block kernel a packed cross row with the
       pair-indexed loader;
-    - above 2^24 the radix-2 passes through device memory.
+    - above 2^26 the radix-2 passes through device memory.
 
-    A batch whose grids would exceed 65,535 rows launches over scene
-    chunks (``scene_chunk``; the one-block routes have no such limit).
+    A batch whose grids would exceed 65,535 rows, or whose scratch would
+    pass ``SPLIT_SCRATCH_BYTES``, launches over scene chunks
+    (``scene_chunk``; the one-block routes have no such limit).
     Bound by device memory: the signals' read, the correlations' write
     and, on the split, one write and one read of each packed buffer a
     pass (on the spectra routes also the spectra's write and two spectra
@@ -1009,7 +1037,7 @@ def gcc_all_pairs(signals: torch.Tensor, pairs_i: Sequence[int],
     couples = (num_pairs + 1) // 2
     route = gcc_route(nfft, mics)
     chunk = (scenes if route.n1 == 1
-             else scene_chunk(scenes, mics, num_pairs))
+             else scene_chunk(scenes, mics, num_pairs, nfft))
     if length > nfft or mask.shape != (nfft // 2 + 1,):
         raise ValueError("gcc_all_pairs: unsupported shapes")
     dev = signals.device
@@ -1099,15 +1127,15 @@ def gcc_windowed(signals: torch.Tensor, pairs_i: Sequence[int],
     inverse column DFTs end in the window and the statistics (per-block
     partials summed in block order by the row's last block, the argmax by
     a 64-bit atomic maximum that keeps the smallest index on ties);
-    elsewhere up to 2^24, four launches through the mic rows' spectra, as
+    elsewhere up to 2^26, four launches through the mic rows' spectra, as
     K1's: K4a's two passes, the pair-indexed row pass (which also clears
     the argmax keys and block counters) and that column pass, with
-    ``spectra_plan``'s strips (8 columns from 2^21, 4 at 2^24).  Above 2^24
-    the radix-2 passes, the last
-    one fused with the window and the statistics.  Bound by device
-    memory.  A batch whose grids would exceed 65,535 rows launches over
-    scene chunks (``scene_chunk``), in one block too, so that K2 chunks as
-    K5 does."""
+    ``spectra_plan``'s strips (8 columns from 2^21, 4 at 2^24 and 2^25, 2
+    at 2^26).  Above 2^26 the radix-2 passes, the last one fused with the
+    window and the statistics.  Bound by device memory.  A batch whose
+    grids would exceed 65,535 rows, or whose scratch would pass
+    ``SPLIT_SCRATCH_BYTES``, launches over scene chunks (``scene_chunk``),
+    in one block too, so that K2 chunks as K5 does."""
     _check_window("gcc_windowed", nfft, wq)
     if _use_plain(signals, mask):
         return gcc_windowed_plain(signals, pairs_i, pairs_j, nfft, wq, mask,
@@ -1132,7 +1160,7 @@ def gcc_windowed(signals: torch.Tensor, pairs_i: Sequence[int],
                       device=dev)
     stats = torch.empty(lead + (num_pairs, 3), dtype=torch.float32,
                         device=dev)
-    chunk = scene_chunk(scenes, mics, num_pairs)
+    chunk = scene_chunk(scenes, mics, num_pairs, nfft)
     route = gcc_route(nfft, mics)
     strips, ptrs, _bufs = _gcc_buffers(route, chunk, mics, couples, nfft, dev)
     keys, count, part = _window_scratch(chunk * couples, nfft, route, dev)
@@ -1429,19 +1457,20 @@ def delay_sum(base: torch.Tensor, tau: torch.Tensor, gains: torch.Tensor,
     from 8,192 to 2^19, K4b's four-step schedule in three launches, K4a's
     column pass over the bases, a row pass that holds a base strip, mixes
     each of its mic rows in turn and runs their inverse row DFTs, and the
-    inverse column DFTs in place; from 2^20 to 2^24, where that row pass's
+    inverse column DFTs in place; from 2^20 to 2^26, where that row pass's
     two strips do not fit, four: K4a's two passes write the bases' half
     spectra, a row pass mixes each packed mic row's strip from them (one
     strip at any mic count) and runs its inverse row DFTs, and the inverse
-    column DFTs (``spectra_plan``'s strips: 8 wide at 2,048, 4 at 4,096);
-    above 2^24 the radix-2 passes.
+    column DFTs (``spectra_plan``'s strips: 8 wide at 2,048, 4 at 4,096,
+    2 at 8,192); above 2^26 the radix-2 passes.
     Then the finish: a block a mic row (``render_finalize``), or, where a
     call's rows from 2^20 are too few to fill the card, spread over
     ``finish_groups`` blocks a packed mic row in up to four launches
     (``finish_spread``: its maxima and sums of squares combined across
     the blocks in block order).  Bound by device memory.  A batch whose
-    grids would exceed 65,535 rows launches over the scene chunks K2 and
-    K5 take for all pairs of the same mics (``scene_chunk``), in one block
+    grids would exceed 65,535 rows, or whose scratch would pass
+    ``SPLIT_SCRATCH_BYTES``, launches over the scene chunks K2 and K5
+    take for all pairs of the same mics (``scene_chunk``), in one block
     too."""
     _check_noise_pair("delay_sum", snr_db, seeds)
     if _use_plain(base, tau, gains, fade):
@@ -1458,7 +1487,7 @@ def delay_sum(base: torch.Tensor, tau: torch.Tensor, gains: torch.Tensor,
     dev = base.device
     out = torch.empty(lead + (mics, out_samples), dtype=torch.float32,
                       device=dev)
-    chunk = scene_chunk(scenes, mics)
+    chunk = scene_chunk(scenes, mics, 0, nfft)
     route = render_route(nfft)
     strips, (zb0, zb1, zm0, zm1), spec, _bufs = _render_buffers(
         route, chunk, mics, nfft, dev)
@@ -1515,7 +1544,7 @@ def scene_windowed(base: torch.Tensor, tau: torch.Tensor,
     65,536 three launches each on the four-step split, with the finalize
     between, seven in all; where ``gcc_rows`` does not fit (2^20 and up
     at any mic count) the GCC's four launches through the mic rows'
-    spectra; from 2^20 to 2^24 the render's four through the base rows'
+    spectra; from 2^20 to 2^26 the render's four through the base rows'
     spectra and the finish's one to four (``finish_groups``); the
     intermediates in device memory and L2.  The render
     writes each finished signal as the packed forward input of the GCC
@@ -1552,7 +1581,7 @@ def scene_windowed(base: torch.Tensor, tau: torch.Tensor,
                       device=dev)
     stats = torch.empty(lead + (num_pairs, 3), dtype=torch.float32,
                         device=dev)
-    chunk = scene_chunk(scenes, mics, num_pairs)
+    chunk = scene_chunk(scenes, mics, num_pairs, nfft)
     rroute = render_route(nfft)
     route = gcc_route(nfft, mics)
     packed, cross = (chunk * mics + 1) // 2, chunk * couples
@@ -1560,7 +1589,7 @@ def scene_windowed(base: torch.Tensor, tau: torch.Tensor,
     # packed mic rows' buffer through the base rows' spectra); the packed
     # mic rows, which hold the finished signals between the stages, once
     # where the render does not run the passes (the GCC runs them only
-    # above 2^24, where the render does too), the first copy large enough
+    # above 2^26, where the render does too), the first copy large enough
     # for the cross rows on the GCC's spectra route (they go there once
     # the spectra are written); the cross rows as K2 takes them on the
     # other routes; one spectra buffer for the GCC's spectra routes and

@@ -1021,7 +1021,7 @@ def test_scene_kernels_across_scene_chunks(cuda, monkeypatch, m, paths,
 
     whole = run()
     monkeypatch.setattr(cf, "_MAX_GRID_Y", 7)
-    assert cf.scene_chunk(5, m, len(pi)) == 2
+    assert cf.scene_chunk(5, m, len(pi), nfft) == 2
     cf.reset_launches()
     sigs, split, fused = run()
     assert cf.LAUNCHES["delay_sum"] == 3 and cf.LAUNCHES["gcc_windowed"] == 3

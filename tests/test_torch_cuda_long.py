@@ -1,8 +1,7 @@
 """The CUDA kernels against their plain PyTorch twins on the card above
-2^20 points: the split of every transforming kernel to 2^24 and of K4a,
-K4b and K6 to 2^26, the radix-2 passes above (K9's at 2^25, K4a's, K4b's
-and K6's at 2^27), K9's, K1's, K2's, K3's and K5's shapes from 2^21 to
-2^24 through the spectra, and the device kernels a call runs there.
+2^20 points: the split of every transforming kernel to 2^26, the radix-2
+passes above (at 2^27), K9's, K1's, K2's, K3's and K5's shapes from 2^21
+to 2^26 through the spectra, and the device kernels a call runs there.
 
 A file of its own, run in its own process: in one process after these
 cases, late profiler traces in ``test_torch_cuda_kernels.py`` lost each
@@ -183,12 +182,15 @@ def test_bootstrap_chunks_by_bytes_keep_one_launch_bits(cuda, monkeypatch):
 @pytest.mark.parametrize("rows,length,nfft,schedule", [
     (1, 600000, 1 << 21, 2048), (1, 2000000, 1 << 22, 2048),
     (1, 600000, 1 << 23, 2048), (1, 8400000, 1 << 24, 4096),
-    (1, 600000, 1 << 25, 0)])
+    (1, 600000, 1 << 25, 4096), (1, 16_800_000, 1 << 25, 4096),
+    (1, 600000, 1 << 26, 8192), (1, 600000, 1 << 27, 0)])
 def test_whitened_corr_kernel_matches_plain(cuda, rows, length, nfft,
                                             schedule):
     """K9 on the split at 2^21 and 2^22 (strips of 8 at 2,048), at 2^23
-    (2,048 x 4,096: 8 columns, 4 rows) and 2^24 (4,096 x 4,096: 4 and 4),
-    and on the passes above 2^24."""
+    (2,048 x 4,096: 8 columns, 4 rows), 2^24 (4,096 x 4,096: 4 and 4),
+    2^25 (4,096 x 8,192: 4 and 2) and 2^26 (8,192 x 8,192: 2 and 2, the
+    row pass reading the n2-point table from device memory), and on the
+    passes above 2^26."""
     _whitened_corr(cuda, rows, length, nfft, schedule)
 
 
@@ -196,12 +198,15 @@ def test_whitened_corr_kernel_matches_plain(cuda, rows, length, nfft,
 @pytest.mark.parametrize("b,m,length,nfft,schedule", [
     (None, 4, 1046019, 1 << 21, 2048), (2, 3, 600000, 1 << 21, 2048),
     (None, 4, 2000000, 1 << 22, 2048), (None, 4, 4200000, 1 << 23, 2048),
-    (None, 8, 4200000, 1 << 23, 2048), (None, 4, 8400000, 1 << 24, 4096)])
+    (None, 8, 4200000, 1 << 23, 2048), (None, 4, 8400000, 1 << 24, 4096),
+    (None, 4, 16800000, 1 << 25, 4096), (None, 8, 16800000, 1 << 25, 4096),
+    (2, 3, 600000, 1 << 25, 4096), (None, 4, 33000000, 1 << 26, 8192)])
 def test_gcc_all_pairs_schedules_match_plain(cuda, b, m, length, nfft,
                                              schedule):
     """K1 through the mic rows' spectra at 2^21 (a 23.7 s recording's 4
     mics, 2 scenes of 3 mics), 2^22, 2^23 (a 95 s recording's 4 and 8
-    mics under ``max_expected_delay=None``) and 2^24 (190 s)."""
+    mics under ``max_expected_delay=None``), 2^24 (190 s), 2^25 (380 s: 4
+    and 8 mics; 2 scenes of 3 mics) and 2^26 (750 s)."""
     _gcc_schedules(cuda, b, m, length, nfft, schedule)
 
 
@@ -209,10 +214,12 @@ def test_gcc_all_pairs_schedules_match_plain(cuda, b, m, length, nfft,
 @pytest.mark.parametrize("b,m,length,nfft", [(1, 4, 1500000, 1 << 21),
                                              (1, 4, 3000000, 1 << 22),
                                              (1, 4, 6000000, 1 << 23),
-                                             (1, 4, 12000000, 1 << 24)])
+                                             (1, 4, 12000000, 1 << 24),
+                                             (1, 4, 24000000, 1 << 25),
+                                             (1, 4, 48000000, 1 << 26)])
 def test_gcc_spectra_routes_match_plain(cuda, b, m, length, nfft):
     """K1 and K2 through the mic rows' spectra at the fast path's 2^21 to
-    2^24 recording lengths (34 s to 272 s at 44.1 kHz)."""
+    2^26 recording lengths (34 s to 1,088 s at 44.1 kHz)."""
     _gcc_spectra(cuda, b, m, length, nfft)
 
 
@@ -224,13 +231,17 @@ def test_gcc_spectra_routes_match_plain(cuda, b, m, length, nfft):
     (1, 4, 1, 6200000, 6000000, 1 << 23, 21),
     (1, 4, 1, 12400000, 12000000, 1 << 24, 21),
     (2, 3, 3, 6200000, 6000000, 1 << 23, 21),
-    (2, 3, 3, 12400000, 12000000, 1 << 24, 21)])
+    (2, 3, 3, 12400000, 12000000, 1 << 24, 21),
+    (1, 4, 1, 24800000, 24000000, 1 << 25, 21),
+    (2, 3, 3, 24800000, 24000000, 1 << 25, 21),
+    (1, 4, 1, 49600000, 48000000, 1 << 26, 21)])
 def test_render_spectra_route_matches_plain(cuda, scenes, m, paths, total,
                                             out, nfft, wq):
-    """K3 through the base rows' spectra at the fast path's 2^21 to 2^24
+    """K3 through the base rows' spectra at the fast path's 2^21 to 2^26
     (the finish spread over the card) and 2 scenes of 3 mics and 3 paths
-    at 2^21, 2^23 and 2^24 (mic rows packed across scenes, an odd pair
-    count); K2 on its signals and K5, equal to K3 then K2 to the bit."""
+    at 2^21, 2^23, 2^24 and 2^25 (mic rows packed across scenes, an odd
+    pair count); K2 on its signals and K5, equal to K3 then K2 to the
+    bit."""
     _render_spectra(cuda, scenes, m, paths, total, out, nfft, wq)
 
 
@@ -240,11 +251,11 @@ def test_device_kernels_per_call_above_2_20(cuda, tmp_path):
     kernels (two rows of a 23.7 s pair at 2^21, three at 2^22 and 2^23,
     one at 2^24, 2^25 and 2^26: strips of 8 columns, 4 at 2^24 and 2^25, 2
     at 2^26) and K4b and K6 their three, not the radix-2 passes; K1 four
-    from 2^21 to 2^24 (K4a's two passes, K9's row pass, the column pass),
+    from 2^21 to 2^26 (K4a's two passes, K9's row pass, the column pass),
     K9 two there; K1 and K2 four
-    at 2^21, 2^23 and 2^24 through the mic rows' spectra (``window_cols``
-    last for K2); K3 eight with the finalize and the noise at 2^22, 2^23
-    and 2^24 (K4a's two passes into the base rows' spectra,
+    at 2^21, 2^23, 2^24, 2^25 and 2^26 through the mic rows' spectra
+    (``window_cols`` last for K2); K3 eight with the finalize and the
+    noise at 2^22 to 2^26 (K4a's two passes into the base rows' spectra,
     ``render_spec_rows``, ``render_cols``, four steps of
     ``finish_spread``) and K5 twelve (K3's, then K2's four); no radix-2
     pass anywhere."""
@@ -277,7 +288,8 @@ def test_device_kernels_per_call_above_2_20(cuda, tmp_path):
     g = _gen(cuda, 8)
     pi, pj = _pairs(4)
     for length, nfft in ((1046019, 1 << 21), (2000000, 1 << 22),
-                         (4200000, 1 << 23), (8400000, 1 << 24)):
+                         (4200000, 1 << 23), (8400000, 1 << 24),
+                         (16800000, 1 << 25), (33000000, 1 << 26)):
         sig = torch.randn((4, length), generator=g, device=cuda)
         mask = cf.band_mask(nfft, None, None, device=cuda)
         names = _device_kernels(
@@ -297,7 +309,8 @@ def test_device_kernels_per_call_above_2_20(cuda, tmp_path):
     passes = ("stockham_pass", "pack_rows", "gcc_cross", "last_pass_window",
               "split_pairs", "render_mix", "render_finalize")
     for length, nfft in ((1500000, 1 << 21), (6000000, 1 << 23),
-                         (12000000, 1 << 24)):
+                         (12000000, 1 << 24), (24000000, 1 << 25),
+                         (48000000, 1 << 26)):
         sig = torch.randn((1, 4, length), generator=g, device=cuda)
         mask = cf.band_mask(nfft, (300.0, 3400.0), 44100.0, device=cuda)
         k1 = _device_kernels(lambda: cf.gcc_all_pairs(sig, pi, pj, nfft,
@@ -318,7 +331,9 @@ def test_device_kernels_per_call_above_2_20(cuda, tmp_path):
     gcc = ["fft_real_cols", "fft_real_rows", "corr_rows", "window_cols"]
     for total, out, nfft in ((3100000, 3000000, 1 << 22),
                              (6200000, 6000000, 1 << 23),
-                             (12400000, 12000000, 1 << 24)):
+                             (12400000, 12000000, 1 << 24),
+                             (24800000, 24000000, 1 << 25),
+                             (49600000, 48000000, 1 << 26)):
         base, tau, gains, snr, seeds3, fade = _scene_inputs(
             cuda, 1, 4, 1, total, out, 21)
         mask = cf.band_mask(nfft, (300.0, 3400.0), 44100.0, device=cuda)

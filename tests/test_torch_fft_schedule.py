@@ -550,7 +550,7 @@ def test_fft_real_split_choice(n):
         assert n1 % cf.fft_real_rows_strip(n2, 64) == 0
     assert cf.fft_real_split(cf.SPLIT_COLS_LONG_MAX) == (2048, 2048)
     assert cf.fft_real_split(2 * cf.SPLIT_COLS_LONG_MAX) == (2048, 4096)
-    assert cf.fft_real_split(cf.SPECTRA_SPLIT_MAX) == (4096, 4096)
+    assert cf.fft_real_split(1 << 24) == (4096, 4096)
     assert cf.fft_real_split(cf.FFT_SPLIT_MAX) == (8192, 8192)
 
 
@@ -567,9 +567,9 @@ def test_split_strips_rule(n, strips, rows_strip):
     fits one block's shared memory (the kernels' byte counts); the next
     wider strip does not fit where a narrower one is taken;
     ``split_plan`` and ``spectra_plan`` give the same strips.  The split
-    reaches 2^24 for every transforming kernel (K9's schedule is K4a's
-    there) and 2^26 for K4a, K4b and K6, its row passes of more than one
-    strip 2^20 (``STAGE_SPLIT_MAX``)."""
+    reaches 2^26 for every transforming kernel (K9's schedule is K4a's),
+    one limit (``FFT_SPLIT_MAX``), its row passes of more than one strip
+    2^20 (``STAGE_SPLIT_MAX``)."""
     n1, n2 = cf.fft_real_split(n)
     assert cf.split_strips(n1, n2) == strips
     assert cf.fft_real_rows_strip(n2, 1) == rows_strip
@@ -594,7 +594,8 @@ def test_split_strips_rule(n, strips, rows_strip):
     assert cf._split_n1(2 * cf.FFT_SPLIT_MAX) == 0
     assert cf._split_strips(0, 2 * cf.FFT_SPLIT_MAX) == (0, 0)
     assert cf.STAGE_SPLIT_MAX == 1 << 20 and cf.SPLIT_COLS_LONG_MAX == 1 << 22
-    assert cf.SPECTRA_SPLIT_MAX == 1 << 24 and cf.FFT_SPLIT_MAX == 1 << 26
+    assert cf.FFT_SPLIT_MAX == 1 << 26
+    assert not hasattr(cf, "SPECTRA_SPLIT_MAX")
 
 
 @pytest.mark.parametrize("bits", range(13, 25))
@@ -802,8 +803,8 @@ def _block_tasks(nb, strip, n1, n2):
     """Every row-pass block's mirror-pair tasks (``pair_task``) at once:
     (block, slot, k2, row, partner slot, partner k2, lower bin q, whether
     (slot, k2) holds q)."""
-    parts = [(np.full(len(r), b),) + tuple(_boot_tasks(b, strip, n1, n2))
-             for b, r in ((b, _boot_tasks(b, strip, n1, n2)[0])
+    parts = [(np.full(len(t[0]), b),) + tuple(t)
+             for b, t in ((b, _boot_tasks(b, strip, n1, n2))
                           for b in range(nb))]
     bi, r, k2, row, pr, pk = (np.concatenate(a) for a in zip(*parts))
     slot_rows = _slot_rows(n1, strip)
@@ -936,9 +937,9 @@ def test_render_split_matches_delay_sum(mics, paths, n, strip):
     assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
 
 
-def render_spectra_model(base, tau, gain, n, strips=None):
+def render_spectra_model(base, tau, gain, n, strips=None, spec=None):
     """K3's render stage through the base rows' spectra (``render_route``'s
-    spectra route, 2^20 to 2^22): base (scenes, len), tau / gain (scenes,
+    spectra route, 2^20 to 2^26): base (scenes, len), tau / gain (scenes,
     mics, paths) -> (scenes, mics, n), the packed inverse of the mixes
     over n.  K4a's two passes with the kernel's strips
     (``fft_real_model``) write each scene's half spectrum, every bin once;
@@ -950,8 +951,10 @@ def render_spectra_model(base, tau, gain, n, strips=None):
     rows); ``render_cols`` over the route's column strips (8 at n1 =
     2,048, 4 at 4,096).  ``strips`` (columns, rows) in place of the
     route's runs the same maps at a length the route does not take
-    through the spectra.  Asserts that each strip reads only bins q <=
-    n/2, each once a row."""
+    through the spectra.  ``spec`` in place of K4a's model's spectra
+    gives the bases' half spectra where K4a's model is held on its own
+    (``tests/test_torch_split_long.py`` at 2^25).  Asserts that each strip
+    reads only bins q <= n/2, each once a row."""
     scenes = base.shape[0]
     mics, paths = tau.shape[1:]
     if strips is None:
@@ -959,8 +962,9 @@ def render_spectra_model(base, tau, gain, n, strips=None):
         assert route.kind == cf.ROUTE_SPECTRA
         strips = route.cols, route.rows
     n1, n2 = cf.fft_real_split(n)
-    spec, writes = fft_real_model(base, n)
-    assert np.array_equal(writes, np.ones_like(writes))
+    if spec is None:
+        spec, writes = fft_real_model(base, n)
+        assert np.array_equal(writes, np.ones_like(writes))
     strip = strips[1]
     nb = n1 // strip
     slot_rows = _slot_rows(n1, strip)
@@ -1266,18 +1270,19 @@ def test_window_stats_keep_the_smallest_tied_index(n):
     (1 << 18, 4, (512, 512)), (1 << 18, 8, (512, 512)),
     (1 << 19, 4, (1024, 1024)), (1 << 20, 2, (1024, 1024)),
     (1 << 22, 4, (2048, 2048)), (1 << 23, 4, (2048, 2048)),
-    (1 << 24, 4, (4096, 4096)), (1 << 25, 4, (0, 0))])
+    (1 << 24, 4, (4096, 4096)), (1 << 25, 4, (4096, 4096)),
+    (1 << 26, 4, (8192, 8192)), (1 << 27, 4, (0, 0))])
 def test_scene_stages_rule(n, mics, want):
     """One rule for K3, K2 and K5 (``scene_stages``): up to 4,096 one block
     for the render (its twiddles, base row and work row), and for the
     GCC one block a scene where a scene's packed mic rows and a spare row
     fit, else a packed cross row through the mic rows' spectra
-    (``gcc_route``); the split from 8,192 to 2^24, the render's with
+    (``gcc_route``); the split from 8,192 to 2^26, the render's with
     ``render_rows`` where its row pass's two strips fit one block's shared
     memory (to 2^19), else through the base rows' spectra, whose row pass
     holds one strip of ``split_strips`` (``render_route``), the GCC's with
     ``gcc_rows`` where its (mics + 1) // 2 + 1 strips fit, else through
-    the mic rows' spectra; the radix-2 passes above 2^24."""
+    the mic rows' spectra; the radix-2 passes above 2^26."""
     got = cf.scene_stages(n, mics)
     assert got == want
     route = cf.gcc_route(n, mics)
@@ -1297,10 +1302,10 @@ def test_scene_stages_rule(n, mics, want):
         assert render.kind == (cf.ROUTE_ROWS if two else cf.ROUTE_SPECTRA)
         if not two:
             assert (render.cols, render.rows) == cf.split_strips(n1, n2)
-            assert cf._row_pass_smem(n1, n2, 1,
-                                     render.rows) <= cf.SMEM_OPTIN
+            assert cf._row_pass_smem(n1, n2, 1, render.rows,
+                                     cf.split_hi_points(n2)) <= cf.SMEM_OPTIN
     else:
-        assert render.kind == cf.ROUTE_PASSES and n > cf.SPECTRA_SPLIT_MAX
+        assert render.kind == cf.ROUTE_PASSES and n > cf.FFT_SPLIT_MAX
     if route.kind == cf.ROUTE_ROWS:
         assert cf._row_pass_smem(got[1], n // got[1],
                                  (mics + 1) // 2 + 1) <= cf.SMEM_OPTIN
@@ -1569,13 +1574,15 @@ def test_corr_split_strips_of_four(rows, n):
     assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
 
 
-@pytest.mark.parametrize("bits", range(13, 25))
+@pytest.mark.parametrize("bits", range(13, 27))
 def test_spectra_plan_rule(bits):
-    """``spectra_plan`` at every length of the split, 8,192 to 2^24, for
+    """``spectra_plan`` at every length of the split, 8,192 to 2^26, for
     1, 2 and 64 packed rows: K4a's two passes as ``split_plan`` gives
     them, the row pass (``corr_rows``, ``render_spec_rows``) one strip of
-    ``split_strips``' rows at the stride ``row_ld`` beside the n1- and
-    n2-point tables, the column pass (``corr_cols``, ``window_cols``,
+    ``split_strips``' rows at the stride ``row_ld`` beside the n1-point
+    table and the n2-point one where it stays in shared memory
+    (``split_hi_points``: not at 2^25 and 2^26, whose row pass reads it
+    from device memory), the column pass (``corr_cols``, ``window_cols``,
     ``render_cols``) ``split_strips``' columns beside the n1/2
     sub-twiddles; each block at most ``BLOCK_POINTS`` points in at most
     ``SMEM_OPTIN`` bytes (``window_cols`` with its 257 static bytes);
@@ -1588,8 +1595,11 @@ def test_spectra_plan_rule(bits):
         plan = cf.spectra_plan(n, packed)
         split = cf.split_plan(n, packed)
         assert (plan.cols, plan.rows) == (split.cols, split.rows)
-        assert plan.spec_rows == (rs, 8 * (n2 // 2 + n1 + n2
+        hi = cf.split_hi_points(n2)
+        assert hi == (n2 if bits <= 24 else 0)
+        assert plan.spec_rows == (rs, 8 * (n2 // 2 + n1 + hi
                                            + rs * cf.row_ld(rs, n2)))
+        assert plan.spec_rows == split.boot_rows
         assert plan.spec_cols == (cs, 8 * (n1 // 2 + n1 * cs))
         for step, length in ((plan.cols, n1), (plan.rows, n2),
                              (plan.spec_rows, n2), (plan.spec_cols, n1)):
@@ -1886,13 +1896,14 @@ def test_corr_block_matches_whitened_corr(n):
     (65536, 4, 256), (65536, 10, 256), (65536, 11, 256), (1 << 18, 8, 512),
     (1 << 19, 4, 1024), (1 << 20, 2, 1024), (1 << 21, 4, 2048),
     (1 << 21, 64, 2048), (1 << 22, 4, 2048), (1 << 23, 4, 2048),
-    (1 << 24, 4, 4096), (1 << 24, 128, 4096), (1 << 25, 4, 0)])
+    (1 << 24, 4, 4096), (1 << 24, 128, 4096), (1 << 25, 4, 4096),
+    (1 << 25, 128, 4096), (1 << 26, 4, 8192), (1 << 27, 4, 0)])
 def test_gcc_schedule_rule(n, mics, want):
     """K1's schedule (``gcc_route``'s n1) is K2's GCC stage's
     (``scene_stages``), one rule: one block up to 4,096 (a scene where the
     twiddles, a scene's widest span of packed rows and a spare row fit one
     block's shared memory, else a packed cross row through the spectra);
-    the split from 8,192 to 2^24 (``gcc_rows`` or the spectra, which
+    the split from 8,192 to 2^26 (``gcc_rows`` or the spectra, which
     hold one strip at any mic count); the passes above."""
     route = cf.gcc_route(n, mics)
     got = route.n1
@@ -1907,20 +1918,20 @@ def test_gcc_schedule_rule(n, mics, want):
 @pytest.mark.parametrize("n,want", [
     (4, 1), (128, 1), (4096, 1), (8192, 128), (65536, 256), (131072, 512),
     (1 << 20, 1024), (1 << 21, 2048), (1 << 22, 2048), (1 << 23, 2048),
-    (1 << 24, 4096), (1 << 25, 0)])
+    (1 << 24, 4096), (1 << 25, 4096), (1 << 26, 8192), (1 << 27, 0)])
 def test_corr_schedule_rule(n, want):
     """K9's schedule (``corr_schedule``): one block up to 4,096, K4a's
-    split up to 2^24 (its row pass's one strip of ``spectra_plan`` fits at
-    every split: 16 rows, 8 at n2 = 2,048, 4 at 4,096), the passes
-    above, where K4a's own split goes on to 2^26."""
+    split up to 2^26 (its row pass's one strip of ``spectra_plan`` fits at
+    every split: 16 rows, 8 at n2 = 2,048, 4 at 4,096, 2 at 8,192 with
+    the n2-point table in device memory), the passes above, as K4a's."""
     assert cf.corr_schedule(n) == want
-    if n <= cf.SPECTRA_SPLIT_MAX:
-        assert want == cf._split_n1(n)
     if 1 < want:
         plan = cf.spectra_plan(n)
         rows = plan.spec_rows.strip
-        assert rows == cf.split_strips(want, n // want)[1]
-        assert cf._row_pass_smem(want, n // want, 1, rows) <= cf.SMEM_OPTIN
+        n2 = n // want
+        assert rows == cf.split_strips(want, n2)[1]
+        assert cf._row_pass_smem(want, n2, 1, rows,
+                                 cf.split_hi_points(n2)) <= cf.SMEM_OPTIN
         assert plan.spec_rows.smem <= cf.SMEM_OPTIN
 
 

@@ -4,16 +4,16 @@ returns False), the kernel library is a stub, and every launch through
 ``cuda_fft._launch`` is recorded with its arguments instead of run.  The
 outputs are left as allocated, so these tests read the launches only.
 
-They hold the split of all eight transforming kernels up to 2^24 (strips
-of 8 at 2,048, of 4 at 4,096) and of K4a, K4b and K6 up to 2^26 (strips of
-2 at 8,192), the radix-2 passes above each limit, the byte
-cap on the split's scratch (``_launch_rows``), the GCC routes of K1, K2
-and K5 (``gcc_route``: one block a scene, ``gcc_rows``, the mic rows'
-spectra on the split and in one block) on both sides of every fit limit
-and the passes above 2^24 alone, K3's render through the base rows'
-spectra from 2^20 to 2^24, the row chunks of K4a,
-K4b, K6 and K9, the scene chunks of K2, K3 and K5 at the sweep's 65,535
-grid limit, their one-block schedules up to 4,096 points and their
+They hold the split of all eight transforming kernels up to 2^26 (strips
+of 8 at 2,048, of 4 at 4,096, of 2 at 8,192), the radix-2 passes above
+that one limit, the byte cap on the split's scratch (``_launch_rows``,
+``scene_chunk``), the GCC routes of K1, K2 and K5 (``gcc_route``: one
+block a scene, ``gcc_rows``, the mic rows' spectra on the split and in
+one block) on both sides of every fit limit and the passes above 2^26
+alone, K3's render through the base rows' spectra from 2^20 to 2^26, the
+row chunks of K4a, K4b, K6 and K9, the scene chunks of K1, K2, K3 and K5
+at the sweep's 65,535 grid limit and under the byte cap at 2^25 and
+2^26, their one-block schedules up to 4,096 points and their
 scratch, the exact-length parity path (K7 only), the api from recorded files
 (K1, K4a, K4b), the compat layer's single pair (K4a + K9 at a power of
 two, K7 otherwise), the api from a recording long enough for K1 at 2^21
@@ -206,12 +206,12 @@ def test_fft_real_schedule_by_length(launches, monkeypatch, nfft, n1,
     assert args[5:7] == strips
 
 
-def _route(kernel, nfft):
-    """Calls ``kernel`` once at nfft on 4 mics a scene (or one row pair)
-    and returns its launch's arguments."""
+def _route(kernel, nfft, length=None):
+    """Calls ``kernel`` once at nfft on 4 mics a scene (or one row pair) of
+    ``length`` samples (nfft / 2 + 100 by default)."""
     from pyaudiolocalization_tpu_torch.parallel.sweep import _pairs
     pi, pj = _pairs(4)
-    length = nfft // 2 + 100
+    length = length or nfft // 2 + 100
     mask = torch.ones(nfft // 2 + 1)
     base, fade = torch.zeros(1, length), torch.ones(length)
     tau, gains = torch.zeros(1, 4, 1), torch.ones(1, 4, 1)
@@ -248,17 +248,18 @@ N1_ARGS = {"gcc_all_pairs": slice(4, 6), "gcc_windowed": slice(4, 6),
                                  "scene_windowed", "delay_sum",
                                  "whitened_corr")] + [
     ("delay_sum", 1 << 23, 2048)] + [
-    (k, 1 << 25, 0) for k in ("gcc_all_pairs", "gcc_windowed",
-                              "scene_windowed", "delay_sum",
-                              "whitened_corr")])
+    (k, 1 << 25, 4096) for k in ("gcc_all_pairs", "gcc_windowed",
+                                 "scene_windowed", "delay_sum",
+                                 "whitened_corr")])
 def test_other_kernels_keep_their_routes_above_2_20(launches, kernel, nfft,
                                                     n1):
     """K9's split, the GCCs' of K1, K2 and K5 (4 mics a scene) and the
-    renders of K3 and K5 reach 2^24, as K4a's, K4b's and K6's
-    (``SPECTRA_SPLIT_MAX``): n1 = 1,024 at 2^20, 2,048 from 2^21 to 2^23 and
-    4,096 at 2^24, the GCCs through their mic rows' spectra and the
-    renders through their base rows' spectra (``render_route``); the
-    radix-2 passes (n1 = 0) at 2^25."""
+    renders of K3 and K5 take the split of K4a, K4b and K6
+    (``FFT_SPLIT_MAX``): n1 = 1,024 at 2^20, 2,048 from 2^21 to 2^23 and
+    4,096 at 2^24 and 2^25, the GCCs through their mic rows' spectra and
+    the renders through their base rows' spectra (``render_route``); 2^26
+    and the radix-2 passes above are
+    ``test_spectra_routes_reach_2_26``'s."""
     _route(kernel, nfft)
     (args,) = _named(launches, kernel)
     if kernel == "scene_windowed":
@@ -268,12 +269,10 @@ def test_other_kernels_keep_their_routes_above_2_20(launches, kernel, nfft,
     assert cf.scene_stages(nfft, 4) == (n1, cf.gcc_route(nfft, 4).n1)
     if kernel in ("delay_sum", "scene_windowed"):
         kind = args[19] if kernel == "delay_sum" else args[35]
-        assert kind == (cf.ROUTE_PASSES if nfft > cf.SPECTRA_SPLIT_MAX
-                        else cf.ROUTE_SPECTRA)
+        assert kind == cf.ROUTE_SPECTRA
     if kernel in ("gcc_all_pairs", "gcc_windowed", "scene_windowed"):
         kind = args[10 if kernel == "scene_windowed" else 6]
-        assert kind == (cf.ROUTE_PASSES if nfft > cf.SPECTRA_SPLIT_MAX
-                        else cf.ROUTE_SPECTRA)
+        assert kind == cf.ROUTE_SPECTRA
 
 
 # Where K3's and K5's render route (kind, column strip, K4a's pass-2
@@ -288,21 +287,26 @@ RENDER_ARGS = {"delay_sum": (slice(19, 23), slice(15, 19), 23, slice(24, 26)),
 @pytest.mark.parametrize("nfft,n1,strips", [
     (1 << 20, 1024, (16, 16, 16)), (1 << 21, 2048, (8, 16, 16)),
     (1 << 22, 2048, (8, 8, 8)), (1 << 23, 2048, (8, 4, 4)),
-    (1 << 24, 4096, (4, 4, 4)), (1 << 25, 0, (0, 0, 0))])
-def test_renders_from_2_20_take_the_base_rows_spectra(launches, nfft, n1,
-                                                      strips):
-    """K3 and K5 on one scene of 4 mics: from 2^20 to 2^24 the render
+    (1 << 24, 4096, (4, 4, 4)), (1 << 25, 4096, (4, 2, 2)),
+    (1 << 26, 8192, (2, 2, 2)), (1 << 27, 0, (0, 0, 0))])
+def test_renders_from_2_20_take_the_base_rows_spectra(launches, monkeypatch,
+                                                      nfft, n1, strips):
+    """K3 and K5 on one scene of 4 mics: from 2^20 to 2^26 the render
     through the base rows' spectra (``render_route``), n1 1,024 / 2,048 /
-    2,048 / 2,048 / 4,096 with ``spectra_plan``'s strips (8 columns from
-    n1 = 2,048 and 4 at 4,096, K4a's pass-2 strip of one packed base row,
-    8 rows at n2 = 2,048 and 4 at 4,096), K4a's packed base rows in the
-    packed mic rows' buffer, no ping-pong copy, the spectra, and the
-    finish spread over 128 blocks a packed mic row with its partials
-    (``finish_groups``); at 2^25 the radix-2 passes, two copies of each
-    buffer, one block a mic row."""
-    _route("delay_sum", nfft)
-    _route("scene_windowed", nfft)
-    spectra = nfft <= cf.SPECTRA_SPLIT_MAX
+    2,048 / 2,048 / 4,096 / 4,096 / 8,192 with ``spectra_plan``'s strips
+    (8 columns from n1 = 2,048, 4 at 4,096 and 2 at 8,192, K4a's pass-2
+    strip of one packed base row, 8 rows at n2 = 2,048, 4 at 4,096 and 2
+    at 8,192), K4a's packed base rows in the packed mic rows' buffer, no
+    ping-pong copy, the spectra, and the finish spread over 128 blocks a
+    packed mic row with its partials (``finish_groups``); at 2^27 the
+    radix-2 passes, two copies of each buffer, one block a mic row."""
+    length = None
+    if nfft > 1 << 25:     # no table, and short rows, at 2^26 and 2^27
+        _no_tables(monkeypatch)
+        length = 1000
+    _route("delay_sum", nfft, length)
+    _route("scene_windowed", nfft, length)
+    spectra = nfft <= cf.FFT_SPLIT_MAX
     kind = cf.ROUTE_SPECTRA if spectra else cf.ROUTE_PASSES
     for name in RENDER_ARGS:
         (args,) = _named(launches, name)
@@ -351,11 +355,12 @@ def test_renders_up_to_2_19_keep_their_launches(launches, nfft, kind, n1):
     (1 << 19, 4, 1), (1 << 20, 4, 128), (1 << 20, 2, 128), (1 << 21, 6, 88),
     (1 << 22, 12, 44), (1 << 20, 131, 4), (1 << 20, 132, 1),
     (1 << 20, 256, 1), (1 << 23, 4, 128), (1 << 24, 6, 88),
-    (1 << 24, 132, 1), (1 << 25, 4, 1)])
+    (1 << 24, 132, 1), (1 << 25, 4, 128), (1 << 26, 4, 128),
+    (1 << 26, 24, 22), (1 << 27, 4, 1)])
 def test_finish_groups_rule(nfft, rows, want):
     """The finish's blocks a packed mic row (``finish_groups``): one block a
-    mic row up to 2^19, above 2^24 and wherever a launch's rows fill the
-    card's 132 SMs; else (the render's spectra route, 2^20 to 2^24) enough
+    mic row up to 2^19, above 2^26 and wherever a launch's rows fill the
+    card's 132 SMs; else (the render's spectra route, 2^20 to 2^26) enough
     for 264 blocks, at most 128 a packed row."""
     assert cf.finish_groups(nfft, rows) == want
 
@@ -381,11 +386,13 @@ def test_spread_finish_partials_cover_each_scene_chunk(launches):
 @pytest.mark.parametrize("nfft,strips", [(1 << 21, (8, 16, 16)),
                                          (1 << 22, (8, 8, 8)),
                                          (1 << 23, (8, 4, 4)),
-                                         (1 << 24, (4, 4, 4))])
+                                         (1 << 24, (4, 4, 4)),
+                                         (1 << 25, (4, 2, 2))])
 def test_k1_and_k9_above_2_20_take_k4a_strips(launches, nfft, strips):
     """Above 2^20 K1 launches with ``spectra_plan``'s strips — 8 columns
-    (4 at 2^24), K4a's pass-2 strip (``fft_real_rows_strip``) and the row
-    pass's (16 rows at 2^21, 8 at 2^22, 4 at 2^23 and 2^24) — K4a's packed
+    (4 at 2^24 and 2^25), K4a's pass-2 strip (``fft_real_rows_strip``)
+    and the row pass's (16 rows at 2^21, 8 at 2^22, 4 at 2^23 and 2^24, 2
+    at 2^25) — K4a's packed
     rows and the cross rows in one buffer, and the spectra in a second; K9
     with the same column and row strips; on ``gcc_rows`` (65,536 at 4
     mics) K1's split passes no strip."""
@@ -451,11 +458,11 @@ def test_gcc_routes_by_shape(launches, kernel, nfft, mics, fits):
     """K1, K2 and K5's GCC stage on both sides of every fit limit: where
     one block a scene or ``gcc_rows`` fits they launch as before the
     spectra routes (n1 1 or the split's, no strip, the same buffers);
-    beyond it, up to 2^24, through the mic rows' spectra — in one block up
+    beyond it, up to 2^26, through the mic rows' spectra — in one block up
     to 4,096 (n1 = 1, the spectra and nothing else), on the split above
     (K4a's strips, K4a's packed buffer shared with the cross rows, the
     spectra, K2's and K5's partials) — never on the radix-2 passes, which
-    start at 2^25.  K5's route is K2's at every shape."""
+    start at 2^27.  K5's route is K2's at every shape."""
     _gcc_call(kernel, nfft, mics)
     (args,) = _named(launches, kernel)
     sched, bufs, parts = GCC_ARGS[kernel]
@@ -466,7 +473,7 @@ def test_gcc_routes_by_shape(launches, kernel, nfft, mics, fits):
     if fits:
         want = cf.ROUTE_BLOCK if nfft <= 4096 else cf.ROUTE_ROWS
         assert (n1, kind) == (1 if nfft <= 4096 else split, want)
-    elif nfft > cf.SPECTRA_SPLIT_MAX:
+    elif nfft > cf.FFT_SPLIT_MAX:
         assert (n1, kind) == (0, cf.ROUTE_PASSES)
     elif nfft <= 4096:
         assert (n1, kind) == (1, cf.ROUTE_SPECTRA_BLOCK)
@@ -506,20 +513,21 @@ def test_gcc_routes_by_shape(launches, kernel, nfft, mics, fits):
 
 
 def test_no_gcc_route_runs_the_passes_up_to_2_22():
-    """For 2 to 128 mics at every power of two from 4 to 2^24 (2^22 before
-    the spectra routes reached 2^24) the GCC of K1, K2 and K5 takes one
-    block, ``gcc_rows`` or the mic rows' spectra, never the radix-2
-    passes, and neither do the render of K3 and K5 (``render_route``) nor
-    K9 (``corr_schedule``); at 2^25 all three take the passes, at every
-    mic count.  ``scene_stages`` reads the route's n1."""
-    for bits in range(2, 26):
+    """For 2 to 128 mics at every power of two from 4 to 2^26 (2^22 before
+    the spectra routes reached 2^24, 2^24 before they reached 2^26) the
+    GCC of K1, K2 and K5 takes one block, ``gcc_rows`` or the mic rows'
+    spectra, never the radix-2 passes, and neither do the render of K3
+    and K5 (``render_route``) nor K9 (``corr_schedule``); at 2^27 all
+    three take the passes, at every mic count.  ``scene_stages`` reads
+    the route's n1."""
+    for bits in range(2, 28):
         nfft = 1 << bits
         assert (cf.render_route(nfft).kind == cf.ROUTE_PASSES) == (
-            bits == 25)
-        assert (cf.corr_schedule(nfft) == 0) == (bits == 25)
+            bits == 27)
+        assert (cf.corr_schedule(nfft) == 0) == (bits == 27)
         for mics in range(2, 129):
             route = cf.gcc_route(nfft, mics)
-            assert (route.kind == cf.ROUTE_PASSES) == (bits == 25)
+            assert (route.kind == cf.ROUTE_PASSES) == (bits == 27)
             assert cf.scene_stages(nfft, mics)[1] == route.n1
             if route.kind == cf.ROUTE_SPECTRA:
                 assert route.n1 == cf.fft_real_split(nfft)[0]
@@ -552,10 +560,12 @@ def test_shapes_that_fit_keep_their_launches(launches, nfft, mics, want):
 def test_window_partials_follow_the_column_strip():
     """``window_cols``' partials: a block sum per column strip, 16
     columns on ``gcc_rows`` and up to 2^20, 8 from 2^21 to 2^23, 4 at
-    2^24 (1,024 blocks a row); none in one block."""
+    2^24 (1,024 blocks a row) and 2^25 (2,048: n2 = 8,192), 2 at 2^26
+    (4,096); none in one block."""
     for nfft, mics, blocks in ((65536, 4, 16), (1 << 20, 4, 64),
                                (1 << 21, 4, 128), (1 << 22, 12, 256),
-                               (1 << 23, 4, 512), (1 << 24, 4, 1024)):
+                               (1 << 23, 4, 512), (1 << 24, 4, 1024),
+                               (1 << 25, 4, 2048), (1 << 26, 4, 4096)):
         keys, count, part = cf._window_scratch(3, nfft,
                                                cf.gcc_route(nfft, mics),
                                                "cpu")
@@ -565,24 +575,112 @@ def test_window_partials_follow_the_column_strip():
         None, None, None)
 
 
+# The spectra routes past 2^24: (n1, column strip, K4a's pass-2 strip, row
+# strip) at 2^25 and 2^26 (one scene of 4 mics, one row pair), the radix-2
+# passes at 2^27.
+LONG_SPECTRA = {25: (4096, 4, 2, 2), 26: (8192, 2, 2, 2), 27: (0, 0, 0, 0)}
+
+
+@pytest.mark.parametrize("bits", [25, 26, 27])
+@pytest.mark.parametrize("kernel", ["whitened_corr", "gcc_all_pairs",
+                                    "gcc_windowed", "delay_sum",
+                                    "scene_windowed"])
+def test_spectra_routes_reach_2_26(launches, monkeypatch, kernel, bits):
+    """Each of K9, K1, K2, K3 and K5 takes the split to ``FFT_SPLIT_MAX``:
+    at 2^25 n1 = 4,096 with 4 columns and 2 rows a strip, at 2^26 n1 =
+    8,192 with strips of 2 (``spectra_plan``; K4a's pass 2 in strips of
+    2 at n2 = 8,192), one scratch copy (K1's and K2's packed rows shared
+    with the cross rows, the spectra beside them; K5's the same and the
+    render's base rows in its mic rows' buffer); at 2^27 the radix-2
+    passes (n1 = 0, no strip, two copies)."""
+    nfft = 1 << bits
+    if bits > 25:
+        _no_tables(monkeypatch)
+    _route(kernel, nfft, 1000)
+    (args,) = _named(launches, kernel)
+    n1, cs, s2, rs = LONG_SPECTRA[bits]
+    kind = cf.ROUTE_SPECTRA if n1 else cf.ROUTE_PASSES
+    if kernel == "whitened_corr":
+        assert args[3:7] == (nfft, n1, cs, rs)
+        assert (args[11] is None) == bool(n1)      # z1: the passes' copy
+        return
+    if kernel in RENDER_ARGS:
+        rsched, bufs, _, _ = RENDER_ARGS[kernel]
+        assert args[7:9] == (nfft, n1)
+        assert args[rsched] == (kind, cs, s2, rs)
+        zb0, zb1, z0, z1 = args[bufs]
+        assert (zb0 == z0 and zb1 is None and z1 is None) == bool(n1)
+    if kernel in GCC_ARGS:
+        sched, bufs, _ = GCC_ARGS[kernel]
+        assert args[sched] == (n1, kind, cs, s2, rs)
+        got = [b is not None for b in args[bufs]]
+        if kernel == "scene_windowed":
+            assert got == ([True, False, True, False, True] if n1
+                           else [True, True, True, True, False])
+        else:
+            assert got == ([True, True, True, False] if n1 else [True] * 4)
+
+
+@pytest.mark.parametrize("bits,scenes,chunks", [
+    (24, 30, [24, 6]), (25, 25, [12, 12, 1]), (26, 13, [6, 6, 1])])
+def test_scene_chunks_cap_their_scratch_by_bytes(launches, monkeypatch, bits,
+                                                 scenes, chunks):
+    """K1, K2, K3 and K5 over ``scenes`` scenes of 4 mics through the
+    spectra: each launch takes at most as many scenes as keep its scratch
+    within ``SPLIT_SCRATCH_BYTES`` (``scene_chunk``, ``_scene_bytes``:
+    0.67 GB a scene at 2^24, 1.34 GB at 2^25, 2.68 GB at 2^26), 24, 12 and
+    6 scenes, the same chunks for the four, so that the sweep's fused and
+    split paths stay equal to the bit; each chunk's finish spreads over
+    the blocks of its own rows."""
+    nfft = 1 << bits
+    if bits > 25:
+        _no_tables(monkeypatch)
+    from pyaudiolocalization_tpu_torch.parallel.sweep import _pairs
+    pi, pj = _pairs(4)
+    out = 1000
+    mask = torch.ones(nfft // 2 + 1)
+    base, fade = torch.zeros(scenes, out), torch.ones(out)
+    tau, gains = torch.zeros(scenes, 4, 1), torch.ones(scenes, 4, 1)
+    sig = torch.zeros(scenes, 4, out)
+    assert cf.scene_chunk(scenes, 4, 6, nfft) == chunks[0]
+    assert chunks[0] * cf._scene_bytes(nfft, 4, 3) <= cf.SPLIT_SCRATCH_BYTES
+    assert (chunks[0] + 2) * cf._scene_bytes(nfft, 4, 3) > (
+        cf.SPLIT_SCRATCH_BYTES)
+    cf.gcc_all_pairs(sig, pi, pj, nfft, mask)
+    cf.gcc_windowed(sig, pi, pj, nfft, 1, mask)
+    cf.delay_sum(base, tau, gains, nfft, out, fade, True)
+    cf.scene_windowed(base, tau, gains, pi, pj, nfft, out, 1, fade, mask)
+    for name in ("gcc_all_pairs", "gcc_windowed", "delay_sum",
+                 "scene_windowed"):
+        assert [a[1] for a in _named(launches, name)] == chunks, name
+    k3 = _named(launches, "delay_sum")
+    assert [a[24] for a in k3] == [cf.finish_groups(nfft, 4 * c)
+                                   for c in chunks]
+    assert k3[1][0] - k3[0][0] == chunks[0] * out * 4
+
+
 # Where each transforming kernel's (nfft, n1) sits in its launch's
 # arguments (K5's n1 of its render, then of its GCC).
 N1_OF = dict(N1_ARGS, fft_real=slice(3, 5), bootstrap_peaks=slice(4, 6),
              noise_bootstrap_peaks=slice(4, 6))
 
 
-@pytest.mark.parametrize("bits,n1", [(24, 4096), (25, 0)])
-def test_all_transforming_kernels_leave_the_split_together(launches, bits,
-                                                           n1):
+@pytest.mark.parametrize("bits,n1", [(24, 4096), (25, 4096), (26, 8192),
+                                     (27, 0)])
+def test_all_transforming_kernels_leave_the_split_together(
+        launches, monkeypatch, bits, n1):
     """All eight kernels that transform (K4a, K4b, K6, K9, K1, K2, K3, K5)
-    launch on the split at 2^24 (``SPECTRA_SPLIT_MAX``, n1 = 4,096); at
-    2^25 the five of the spectra routes (K9, K1, K2, K3, K5) take the
-    radix-2 passes (n1 = 0) together, while K4a, K4b and K6 stay on the
-    split to ``FFT_SPLIT_MAX`` (n1 = 4,096 at 2^25)."""
+    launch on the split at 2^24 and 2^25 (n1 = 4,096) and 2^26
+    (``FFT_SPLIT_MAX``, n1 = 8,192), one limit; at 2^27 all eight take
+    the radix-2 passes (n1 = 0) together."""
     nfft = 1 << bits
+    length = None
+    if bits > 25:          # no table, and short rows, at 2^26 and 2^27
+        _no_tables(monkeypatch)
+        length = 1000
     for kernel in ("gcc_all_pairs", "gcc_windowed", "delay_sum",
                    "scene_windowed", "whitened_corr"):
-        _route(kernel, nfft)
+        _route(kernel, nfft, length)
     rows = torch.zeros(2, 100)
     s1 = torch.zeros(nfft // 2 + 1, dtype=torch.complex64)
     cf.fft_real(rows, nfft)
@@ -594,10 +692,7 @@ def test_all_transforming_kernels_leave_the_split_together(launches, bits,
         got = args[N1_OF[name]]
         if name == "scene_windowed":
             got = args[7:10]
-        want = n1
-        if name in ("fft_real", "bootstrap_peaks", "noise_bootstrap_peaks"):
-            want = cf.fft_real_split(nfft)[0]
-        assert got == (nfft,) + (want,) * (len(got) - 1), name
+        assert got == (nfft,) + (n1,) * (len(got) - 1), name
 
 
 # ---------------------------------------------------------------------------
@@ -715,7 +810,7 @@ def test_sweep_across_the_chunk_boundary_launches_each_stage_per_chunk(
     per chunk, the split path K3 and K2 once per chunk, over the same
     chunks (21,844 + 2 scenes) and the same scene offsets."""
     assert SPEC.nfft == 512 and tsw._mono_scene_eligible(SPEC)
-    assert cf.scene_chunk(CAP_SCENES, 4, 6) == 21_844
+    assert cf.scene_chunk(CAP_SCENES, 4, 6, SPEC.nfft) == 21_844
     monkeypatch.setattr(tsw, "_solve_from_window", _stop)
     for fused in (True, False):
         gen = torch.Generator().manual_seed(3)
@@ -1004,7 +1099,7 @@ def test_moving_render_over_the_chunk_limit_launches_per_chunk(launches):
     from pyaudiolocalization_tpu_torch.models import simulator
     cube = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1], [1, 1, 0],
                      [1, 0, 1], [0, 1, 1], [1, 1, 1]], float)
-    chunk = cf.scene_chunk(10 ** 6, 8)
+    chunk = cf.scene_chunk(10 ** 6, 8, 0, cf.FFT_REAL_ONE_BLOCK)
     fs = 8000.0
     # A still source: the margins do not depend on the duration.
     _, lead = simulator._moving_margins([0.5] * 3, [0.0] * 3, cube, fs,
@@ -1015,6 +1110,9 @@ def test_moving_render_over_the_chunk_limit_launches_per_chunk(launches):
         dtype=torch.float32, device="cpu")
     chunks = [a[1] for a in _named(launches, "delay_sum")]
     assert chunks == [chunk, 3] or chunks == [chunk, 4], chunks
+    # The frames' length takes one block: no scratch caps the chunk.
+    assert all(a[7] <= cf.FFT_REAL_ONE_BLOCK
+               for a in _named(launches, "delay_sum"))
 
 
 @pytest.mark.parametrize("weighting,segment,k1", [

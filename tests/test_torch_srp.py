@@ -108,8 +108,9 @@ def test_scene_chunk_keeps_every_grid_within_its_limit(scenes, mics,
                                                        num_pairs, want):
     """One chunk rule for K1, K2, K3 and K5: the couples of the larger of
     the given pairs and all M (M - 1) / 2 pairs (K3 passes none), every
-    grid's y extent within 65,535, and an even chunk short of the batch."""
-    chunk = cf.scene_chunk(scenes, mics, num_pairs)
+    grid's y extent within 65,535, and an even chunk short of the batch
+    (at 4,096 points, one block a scene, no scratch caps the chunk)."""
+    chunk = cf.scene_chunk(scenes, mics, num_pairs, 4096)
     assert chunk == want
     couples = (max(num_pairs, mics * (mics - 1) // 2) + 1) // 2
     assert (chunk * mics + 1) // 2 <= 65535 and chunk * couples <= 65535

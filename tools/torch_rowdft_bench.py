@@ -51,12 +51,13 @@ row at 2^22 and three at 2^23, 2^24, 2^25 and 2^26, the 200 s
 recording's 64 draws a pair at 2^25, K6 also at 1,000 draws at 2^23 and
 300 at 2^24, each K4b or K6 case from ``HEAVY_POINTS`` timed one call a
 loop and logged as not fitting where the card runs out of memory; K1 at the
-23.7 s recording's 4 and 8 mics at 2^21, 4 mics at 2^22, 4 and 8 at 2^23
-and 4 at 2^24, K9 at one pair of each); ``--gcc --long`` times only K1
-and K9 (``ROUTE_GCC``) and K2, K3 and K5 (``ROUTE_SCENES``) at the
-shapes where the GCC goes through the mic rows' spectra, and K3 at the
-shapes of its render through the base rows' spectra, to 2^24
-(``--scene --long``: those of K2, K3 and K5 alone, then chip_smoke.py's
+23.7 s recording's 4 and 8 mics at 2^21, 4 mics at 2^22, 4 and 8 at 2^23,
+4 at 2^24, 4 and 8 at 2^25 and 4 at 2^26, K9 at one pair of each);
+``--gcc --long`` times only K1 and K9 (``ROUTE_GCC``) and K2, K3 and K5
+(``ROUTE_SCENES``) at the shapes where the GCC goes through the mic
+rows' spectra, and K3 at the shapes of its render through the base
+rows' spectra, to 2^26 (``--min-nfft N``: those from N points on;
+``--scene --long``: those of K2, K3 and K5 alone, then chip_smoke.py's
 simulated 20 s, 60 s and 120 s scenes on the fast path, ``long_scenes``,
 K3 at 2^20, 2^22 and 2^23: their wall time cold and warm and their
 device time by kernel), each after the spectra kernels' ptxas lines;
@@ -82,6 +83,7 @@ machine with the card:
     python tools/torch_rowdft_bench.py [--reps 5] [--k4a | --boot | --k6 |
                                         --scene | --gcc | --k10 | --long |
                                         --recording | --trace]
+                                       [--min-nfft N]
 
 ``chip_smoke.py`` runs it once as its phase 7 (``run``).  To A/B two
 versions of the package in one call, run this file from a copy of each
@@ -221,26 +223,34 @@ GCC_SHAPES = {"api": (None, 4, 44100, 65536, BAND),
               "spectra_block": (128, 16, 4000, 4096, BAND),
               "split23": (None, 4, 4200000, 1 << 23, None),
               "split23_8": (None, 8, 4200000, 1 << 23, BAND),
-              "split24": (None, 4, 8400000, 1 << 24, None)}
+              "split24": (None, 4, 8400000, 1 << 24, None),
+              "split25": (None, 4, 16800000, 1 << 25, None),
+              "split25_8": (None, 8, 16800000, 1 << 25, BAND),
+              "split26": (None, 4, 33000000, 1 << 26, None)}
 # --gcc --long: the shapes where K1's, K2's and K5's GCC goes through the
 # mic rows' spectra (``cuda_fft.gcc_route``; before, the radix-2 passes):
 # K1 at 11 mics x 65,536, 8 mics x 2^18, 4 mics of an 18 s recording at
 # 2^20, 128 x 16 mics at 4,096 and its shapes above 2^20 (GCC_SHAPES: to
-# 2^24, 4 and 8 mics at 2^23), K9 at its shapes above 2^20 (CORR_SHAPES,
-# to 2^24); K2 (with K3 and K5 beside it, ``SCENE_SHAPES``' layout) at
-# the fast path's 4 mics at 2^20 to 2^24, where K3's render also goes
+# 2^26, 4 and 8 mics at 2^23 and 2^25), K9 at its shapes above 2^20
+# (CORR_SHAPES, to 2^26); K2 (with K3 and K5 beside it,
+# ``SCENE_SHAPES``' layout) at the fast path's 4 mics at 2^20 to 2^26
+# (24,000,000 and 48,000,000 samples at 2^25 and 2^26), where K3's
+# render also goes
 # through the base rows' spectra with its finish spread over the card,
 # 512 x 12 mics at 4,096 and one scene of 6 mics at 2^18; K3 alone at 2
 # scenes x 3 mics x 3 paths at 2^21 and 2^23 (mic rows packed across
 # scenes) and 64 scenes x 4 mics at 2^20 (rows that fill the card: one
 # finish block a mic row).
 ROUTE_GCC = ("mics11", "spectra18", "spectra20", "spectra_block", "long",
-             "long8", "long22", "split23", "split23_8", "split24")
+             "long8", "long22", "split23", "split23_8", "split24",
+             "split25", "split25_8", "split26")
 ROUTE_SCENES = {"fast20": (1, 4, 1, 900000, 800000, 1 << 20, 21, True),
                 "fast21": (1, 4, 1, 1600000, 1500000, 1 << 21, 21, True),
                 "fast22": (1, 4, 1, 3100000, 3000000, 1 << 22, 21, True),
                 "fast23": (1, 4, 1, 6200000, 6000000, 1 << 23, 21, True),
                 "fast24": (1, 4, 1, 12400000, 12000000, 1 << 24, 21, True),
+                "fast25": (1, 4, 1, 24800000, 24000000, 1 << 25, 21, True),
+                "fast26": (1, 4, 1, 49600000, 48000000, 1 << 26, 21, True),
                 "odd23": (2, 3, 3, 6200000, 6000000, 1 << 23, None, True),
                 "spectra_block": (512, 12, 1, 4094, 4000, 4096, 2, True),
                 "spectra18": (1, 6, 1, 250000, 200000, 1 << 18, 8, True),
@@ -251,7 +261,9 @@ CORR_SHAPES = {"main": (1, 44100, 65536), "no_gate": (1, 44100, 131072),
                "edge": (3, 3000, 4096), "long": (1, LONG, 1 << 21),
                "long22": (1, 2000000, 1 << 22),
                "split23": (1, 4200000, 1 << 23),
-               "split24": (1, 8400000, 1 << 24)}
+               "split24": (1, 8400000, 1 << 24),
+               "split25": (1, 16800000, 1 << 25),
+               "split26": (1, 33000000, 1 << 26)}
 GCC_TOL = 1e-6
 # The split's kernels whose compiler report --long prints (K4a's, K4b's
 # and K6's, then the spectra routes'; --gcc --long and --scene --long
@@ -1023,6 +1035,9 @@ def main() -> int:
     ap.add_argument("--trace", action="store_true",
                     help="only count the device-time traces that miss a "
                          "kernel, with and without their idle edges")
+    ap.add_argument("--min-nfft", type=int, default=0,
+                    help="with --gcc --long or --scene --long, only the "
+                         "shapes from this many points on")
     ap.add_argument("--k10", action="store_true",
                     help="time only K10a, K10b and K10c, the full forward "
                          "and the chain at the TPU tool's shapes, with "
@@ -1049,8 +1064,10 @@ def main() -> int:
         if args.long and (args.gcc or args.scene):
             ptxas_report(SPECTRA_KERNELS, log)
             if args.gcc:
-                gcc(args.reps, log, names=ROUTE_GCC)
-            scene(args.reps, log, ROUTE_SCENES)
+                gcc(args.reps, log, args.min_nfft, names=ROUTE_GCC)
+            scene(args.reps, log, {
+                name: shape for name, shape in ROUTE_SCENES.items()
+                if shape[5] >= args.min_nfft})
             if args.scene:
                 simulations(smi)
         elif args.long:
