@@ -17,12 +17,12 @@ in twelve phases:
    2 device kernels a call, one row at 2^23 (2,048 x 4,096: strips of 8
    columns and 4 rows), 2^24 (4,096 x 4,096: 4 and 4), 2^25 and 2^26
    (4,096 x 8,192 and 8,192 x 8,192) on the split too, 2, and one row at
-   2^27 on the radix-2 passes, 29; K4b also at no_gate's 131,072 and two
-   rows, with its device time and kernels per call, and above 2^20 at 64
-   and 1,000 rows of the 23.7 s pair at 2^21 and 3 rows at 2^22 to 2^26,
-   3 device kernels a call, and 3 rows at 2^27 on the passes, 56; K6 also
-   at 131,072 and at K4b's shapes above 2^20 (the passes at 2^27: 55
-   kernels) and at 300 draws at 2^24 (two
+   2^27, 2^28 and 2^30 on the three-pass split, 3; K4b also at no_gate's
+   131,072 and two rows, with its device time and kernels per call, and
+   above 2^20 at 64 and 1,000 rows of the 23.7 s pair at 2^21 and 3 rows
+   at 2^22 to 2^26, 3 device kernels a call, and 3 rows at 2^27 and 2^28
+   and 2 at 2^30 on the three-pass split, 5; K6 also at 131,072 and at
+   K4b's shapes above 2^20 and at 300 draws at 2^24 (two
    launches under the scratch's byte cap), each shape equal to K4b on the
    same draws, with its device
    time and kernels per call, as K5, K3 and K2 at the sweep's and the
@@ -171,7 +171,10 @@ in twelve phases:
    K4a and K6 on their split of 8-wide strips) the same way; neither run
    launches a radix-2 pass of K1; a 4 x 60 s recording at 44.1 kHz under
    ``max_expected_delay=None`` (nfft 2^23: K4a, K6 and K1 on their split
-   past 2^22) the same way, with no radix-2 pass of K4a, K6 or K1; 4-mic
+   past 2^22) the same way, with no radix-2 pass of K4a, K6 or K1, and
+   4 x 200 s and 4 x 800 s ones (nfft 2^25 and 2^27: K4a and K6 on the
+   split and on the three-pass split, K1 on its split and at 2^27 on its
+   passes, logged) with no pass kernel of K4a or K6; 4-mic
    recordings at 44.1 kHz (no resampling) of 16 s on the full core (K1
    at 2^20) and of 16, 30, 60 and 120 s on the fast path (K2 at 2^20 to
    2^23), the GCC through the mic rows' spectra, each the same way, none
@@ -345,11 +348,8 @@ ADDED = {("delay_sum", "odd"): 1, ("gcc_windowed", "odd"): 1,
          ("gcc_windowed", "fast24"): 13, ("whitened_corr", "split23"): 13,
          ("whitened_corr", "split24"): 13, ("whitened_corr", "split25"): 13,
          ("scene_windowed", "fast23"): 13, ("scene_windowed", "fast24"): 13,
-         ("fft_real", "split26"): 14, ("fft_real", "passes27"): 14,
-         ("bootstrap_peaks", "split26"): 14,
-         ("bootstrap_peaks", "passes27"): 14,
+         ("fft_real", "split26"): 14, ("bootstrap_peaks", "split26"): 14,
          ("noise_bootstrap_peaks", "split26"): 14,
-         ("noise_bootstrap_peaks", "passes27"): 14,
          ("whitened_corr", "split26"): 15, ("whitened_corr", "passes27"): 15,
          ("gcc_all_pairs", "split25"): 15, ("gcc_all_pairs", "split25_8"): 15,
          ("gcc_all_pairs", "split26"): 15, ("gcc_windowed", "fast25"): 15,
@@ -357,7 +357,13 @@ ADDED = {("delay_sum", "odd"): 1, ("gcc_windowed", "odd"): 1,
          ("delay_sum", "fast26"): 15, ("scene_windowed", "fast25"): 15,
          ("scene_windowed", "fast26"): 15, ("gcc_all_pairs", "passes27"): 16,
          ("gcc_windowed", "passes27"): 16, ("delay_sum", "passes27"): 16,
-         ("scene_windowed", "passes27"): 16}
+         ("scene_windowed", "passes27"): 16, ("fft_real", "long27"): 14,
+         ("bootstrap_peaks", "long27"): 14,
+         ("noise_bootstrap_peaks", "long27"): 14, ("fft_real", "long28"): 17,
+         ("fft_real", "long30"): 17, ("bootstrap_peaks", "long28"): 17,
+         ("bootstrap_peaks", "long30"): 17,
+         ("noise_bootstrap_peaks", "long28"): 17,
+         ("noise_bootstrap_peaks", "long30"): 17}
 # The sweep across K2's, K3's and K5's scene-chunk boundary: one scene past
 # the 65,535 grid rows of one launch at 4 mics (3 couples), at nfft 512.
 CHUNK_SCENES = 21846
@@ -371,17 +377,23 @@ LONG_DRAWS = 64
 # ``max_expected_delay=None``), past 2^24 (every transforming kernel's
 # split of 4,096 x 8,192, 4 columns and 2 rows, and 8,192 x 8,192, 2 and
 # 2, the n2-point table read from device memory: a 190 s and a 375 s
-# recording) and past 2^26 (the radix-2 passes), with their device
-# kernels a call there (K4a: the packing, 27 passes, the split; K4b: the
-# packing, 27 forward passes, the whitening, 26 inverse ones and the last
-# with the maxima; K6: its first pass draws the rows); K6's draws at 2^24
-# that take two launches under the byte cap.
+# recording) and past 2^26 (K4a's, K4b's and K6's three-pass split: a
+# 1,520 s, a 3,039 s and a 9,070 s recording, 3 device kernels a call of
+# K4a, 5 of K4b and K6, ``LONG_KERNELS``; the spectra routes' radix-2
+# passes at 2^27); K6's draws at 2^24 that take two launches under the
+# byte cap.  The 2^27 cases of K4a, K4b and K6 draw from the stream and
+# take the shapes that their radix-2 passes' cases did, so every later
+# case of that stream keeps its inputs.
 LONG22 = (2000000, 1 << 22)
 SPLIT23 = (4200000, 1 << 23)
 SPLIT24 = (8400000, 1 << 24)
 SPLIT25 = (16800000, 1 << 25)
 SPLIT26 = (33000000, 1 << 26)
 PASSES27 = (67000000, 1 << 27)
+LONG28 = (134000000, 1 << 28)
+LONG30 = (400000000, 1 << 30)
+LONG_KERNELS = {"fft_real": 3, "bootstrap_peaks": 5,
+                "noise_bootstrap_peaks": 5}
 DRAWS24 = 300
 # Phase 3's cases of the spectra routes: one scene's samples at the fast
 # path's (and the full core's) 2^20 to 2^26 under DEFAULT_CONFIG (18.1,
@@ -395,16 +407,15 @@ FAST_SAMPLES = {1 << 20: 800000, 1 << 21: 1500000, 1 << 22: 3000000,
 SPECTRA_PASS_KERNELS = ("pack_rows", "stockham_pass", "gcc_cross",
                         "split_pairs", "last_pass_window", "render_mix",
                         "corr_cross")
-# Device kernels a call runs at 2^27 on the radix-2 passes (one row, row
-# pair or 4-mic scene; 27 passes a transform, 26 where the last is fused):
-# K9 the cross spectrum, 27 inverse passes, the split into the pairs; K1
-# the packing, 27 forward passes, the cross spectra, 27 inverse ones and
-# the split; K2 as K1 up to 26 inverse passes and the last with the
-# window; K3 the packing, 27 passes, the mix, 27 passes, the finalize;
-# K5 K3's 57 and K2's 55 after its packing.
-PASSES27_KERNELS = {"fft_real": 29, "bootstrap_peaks": 56,
-                    "noise_bootstrap_peaks": 55, "whitened_corr": 29,
-                    "gcc_all_pairs": 57, "gcc_windowed": 56, "delay_sum": 57,
+# Device kernels a call runs at 2^27 on the radix-2 passes (one row pair
+# or 4-mic scene; 27 passes a transform, 26 where the last is fused): K9
+# the cross spectrum, 27 inverse passes, the split into the pairs; K1 the
+# packing, 27 forward passes, the cross spectra, 27 inverse ones and the
+# split; K2 as K1 up to 26 inverse passes and the last with the window;
+# K3 the packing, 27 passes, the mix, 27 passes, the finalize; K5 K3's 57
+# and K2's 55 after its packing.
+PASSES27_KERNELS = {"whitened_corr": 29, "gcc_all_pairs": 57,
+                    "gcc_windowed": 56, "delay_sum": 57,
                     "scene_windowed": 112}
 # The card's name and power limit (nvidia-smi), set by main().
 CARD = ["not read"]
@@ -963,8 +974,10 @@ def kernel_phase(cf, torch):
     # 2^24 on K4a's split past K9's (the long side in the rows: 2,048 x
     # 4,096 and 4,096 x 4,096, 2 device kernels); "split25" and "split26"
     # one row at 2^25 and 2^26 (4,096 x 8,192 and 8,192 x 8,192, the
-    # n2-point table read from device memory, 2 device kernels);
-    # "passes27" one row at 2^27, past the split, on the radix-2 passes.
+    # n2-point table read from device memory, 2 device kernels); "long27",
+    # "long28" and "long30" one row at 2^27, 2^28 and 2^30, past the split,
+    # on the three-pass split (3 device kernels), each table's host build
+    # timed.
     for tag, (rows_n, length, nfft) in {
             "main": (1, N, NFFT), "no_gate": (1, N, 2 * NFFT),
             "single_pair": (2, N, NFFT), "rows": (1024, NFFT, NFFT),
@@ -972,9 +985,12 @@ def kernel_phase(cf, torch):
             "long": (2, LONG_SAMPLES, LONG_NFFT),
             "long22": (1,) + LONG22, "split23": (1,) + SPLIT23,
             "split24": (1,) + SPLIT24, "split25": (1,) + SPLIT25,
-            "split26": (1,) + SPLIT26, "passes27": (1,) + PASSES27}.items():
+            "split26": (1,) + SPLIT26, "long27": (1,) + PASSES27,
+            "long28": (1,) + LONG28, "long30": (1,) + LONG30}.items():
         draw("fft_real", tag)
         x = randn(rows_n, length).contiguous()
+        if nfft > cf.FFT_SPLIT_MAX:
+            table_note(cf, nfft, x.device)
         res = compare(
             f"fft_real[{tag}] rows={rows_n} len={length} nfft={nfft}"
             f"{split_note(cf, nfft, rows_n)}",
@@ -989,26 +1005,25 @@ def kernel_phase(cf, torch):
             f"{device_ms(lambda: cf.fft_real(x, nfft))['total']:.4f} ms, "
             f"torch.fft.rfft "
             f"{device_ms(lambda: torch.fft.rfft(x, n=nfft))['total']:.4f} ms")
-        if tag in ("long", "long22", "split23", "split24", "split25",
-                   "split26", "passes27"):
+        if tag.startswith(("long", "split")):
             log_device(f"fft_real[{tag}]", lambda: cf.fft_real(x, nfft),
-                       kernels=PASSES27_KERNELS["fft_real"]
-                       if tag == "passes27" else 2)
+                       kernels=LONG_KERNELS["fft_real"]
+                       if nfft > cf.FFT_SPLIT_MAX else 2)
         if tag == "main":
             results["fft_real"] = res
         del x
 
-    def long_kernels(name, tag):
+    def long_kernels(name, tag, nfft):
         """Device kernels a call of K4b or K6 at a case above 2^20: three
         on the split (the column pass, the row pass, the column pass with
         the maxima), six where the draws take two launches under the
-        scratch's byte cap, the radix-2 passes' count at 2^27; None
-        below."""
+        scratch's byte cap, five on the three-pass split above 2^26
+        (``LONG_KERNELS``); None below."""
+        if nfft > cf.FFT_SPLIT_MAX:
+            return LONG_KERNELS[name]
         if tag.startswith(("long", "split")):
             return 3
-        if tag == "draws24":
-            return 6
-        return PASSES27_KERNELS[name] if tag == "passes27" else None
+        return 6 if tag == "draws24" else None
 
     # K4b: bootstrap null at 1000 permuted rows, at the main path's 65,536
     # and no_gate's 131,072 (three launches over the four-step split);
@@ -1017,9 +1032,10 @@ def kernel_phase(cf, torch):
     # default 1,000 (2,048 x 1,024: strips of 8 columns, 16 rows), 3 rows
     # at 2^22 (8 columns, 8 rows), at 2^23 (8 columns, 4 rows), at 2^24
     # (4 and 4), at 2^25 (4 and 2) and at 2^26 (2 and 2), 3 device kernels
-    # a call each, and 3 rows at 2^27 on the radix-2 passes; their twins
-    # run in chunks of rows (the bench tool's ``twin_rows``; up to 2^16
-    # one call).
+    # a call each, and 3 rows at 2^27 and 2^28 and 2 at 2^30 on the
+    # three-pass split, 5; their twins run in chunks of rows (the bench
+    # tool's ``twin_rows``; up to 2^16 one call, one row a call from
+    # 2^28).
     # The device time per call and the device kernels a call runs
     # (torch.profiler) are logged beside the CUDA-event time.
     for tag, (rows_n, length, nfft) in {
@@ -1029,7 +1045,8 @@ def kernel_phase(cf, torch):
             "long1000": (NULL_DRAWS, LONG_SAMPLES, LONG_NFFT),
             "long22": (3,) + LONG22, "split23": (3,) + SPLIT23,
             "split24": (3,) + SPLIT24, "split25": (3,) + SPLIT25,
-            "split26": (3,) + SPLIT26, "passes27": (3,) + PASSES27}.items():
+            "split26": (3,) + SPLIT26, "long27": (3,) + PASSES27,
+            "long28": (3,) + LONG28, "long30": (2,) + LONG30}.items():
         draw("bootstrap_peaks", tag)
         sig2 = randn(length)
         keys = rand(rows_n, length)
@@ -1047,7 +1064,7 @@ def kernel_phase(cf, torch):
                         rows_n * (2 * _rfft_ops(nfft) + (nfft // 2) * 15)))
         log_device(f"bootstrap_peaks[{tag}]",
                    lambda: cf.bootstrap_peaks(s1, rows, nfft),
-                   kernels=long_kernels("bootstrap_peaks", tag))
+                   kernels=long_kernels("bootstrap_peaks", tag, nfft))
         if tag == "main":
             results["bootstrap_peaks"] = res
         del rows
@@ -1069,7 +1086,8 @@ def kernel_phase(cf, torch):
             "long22": (3,) + LONG22, "split23": (3,) + SPLIT23,
             "split24": (3,) + SPLIT24, "draws24": (DRAWS24,) + SPLIT24,
             "split25": (3,) + SPLIT25, "split26": (3,) + SPLIT26,
-            "passes27": (3,) + PASSES27}.items():
+            "long27": (3,) + PASSES27, "long28": (3,) + LONG28,
+            "long30": (2,) + LONG30}.items():
         draw("noise_bootstrap_peaks", tag)
         s1 = cf.fft_real_plain(randn(1, n_samp), nfft)[0].contiguous()
         seeds = randint(rows_n, 2)
@@ -1096,12 +1114,15 @@ def kernel_phase(cf, torch):
             "same draws")
         log_device(f"noise_bootstrap_peaks[{tag}]",
                    lambda: cf.noise_bootstrap_peaks(s1, seeds, n_samp, nfft),
-                   kernels=long_kernels("noise_bootstrap_peaks", tag))
+                   kernels=long_kernels("noise_bootstrap_peaks", tag, nfft))
         if tag == "main":
             results["noise_bootstrap_peaks"] = res
     # The cases above 2^22 leave tens of GB in the allocator's cache (the
-    # 300 draws' 16 GiB scratch, their 10 GB of twin draws): give it back,
-    # so that the cases and phases that follow start as they did before.
+    # 300 draws' 16 GiB scratch, their 10 GB of twin draws) and the
+    # twiddle tables of 2^28 and 2^30 (1 and 4 GiB) in ``_twiddles``'
+    # cache: give them back, so that the cases and phases that follow
+    # start as they did before.
+    cf._twiddles.cache_clear()
     torch.cuda.empty_cache()
 
     # K7: PHAT whitening.  Main: the single pair at the exact length 88,199
@@ -1271,12 +1292,31 @@ def split_note(cf, nfft, rows):
     """" strips c/r/b": the strips of the split's column passes (K4a's pass
     1, K4b's and K6's passes 1 and 3), K4a's pass 2 and K4b's and K6's row
     pass at nfft for ``rows`` rows (``cuda_fft.split_plan``; no launch
-    takes a thread-block cluster); "" off the split."""
-    if not cf.FFT_REAL_ONE_BLOCK < nfft <= cf.FFT_SPLIT_MAX:
+    takes a thread-block cluster); above 2^26 the three-pass split's
+    n1a x n1b x n2 and strips (``cuda_fft.long_plan``); "" in one
+    block."""
+    if nfft <= cf.FFT_REAL_ONE_BLOCK:
         return ""
+    if nfft > cf.FFT_SPLIT_MAX:
+        plan = cf.long_plan(nfft, (rows + 1) // 2)
+        return (f" {plan.n1a} x {plan.n1b} x {nfft // plan.n1a // plan.n1b}"
+                f" strips {plan.cols_a.strip}/{plan.rows.strip}/"
+                f"{plan.boot_rows.strip}")
     plan = cf.split_plan(nfft, (rows + 1) // 2)
     return (f" strips {plan.cols.strip}/{plan.rows.strip}/"
             f"{plan.boot_rows.strip}")
+
+
+def table_note(cf, nfft, device):
+    """Builds the twiddle table of K4a's, K4b's and K6's three-pass split
+    at nfft on ``device`` (``cuda_fft._twiddles``: the n-point half table
+    and its n1-, n2-, n1a- and n1b-point copies, made in float64 on host
+    threads) unless it is cached, and logs the host build's wall time."""
+    start = time.perf_counter()
+    tab = cf._twiddles(nfft, str(device))
+    log(f"twiddle table at {nfft}: {tab.shape[0]:,} entries "
+        f"({tab.numel() * 4 / 2 ** 30:.3f} GiB), built or read from the "
+        f"cache in {time.perf_counter() - start:.3f} s wall {card_note()}")
 
 
 def gcc_kernels(cf, nfft, mics):
@@ -3310,9 +3350,10 @@ def long_recording(cf, torch, launches, hold_split=True):
 # Step 3b's recording: 4 mics x 60 s at 44.1 kHz (no resampling) with
 # whole-sample delays near the 24 s recording's once resampled, whose GCC
 # and noise null transform at 2^23 under ``max_expected_delay=None``
-# (next_pow2(2n - 1)); and the device kernels of K4a's and K6's radix-2
-# passes (``palt_fft_real`` and ``palt_noise_bootstrap_peaks`` at n1 = 0)
-# that K1's passes do not run too.
+# (next_pow2(2n - 1)); and the device kernels that K4a's and K6's radix-2
+# passes ran and K1's passes do not (the passes above 2^26 until the
+# three-pass split took their place and their kernels were deleted: a
+# parent tree's trace still names them).
 REC23_SECONDS = 60
 REC23_DELAYS = (0, 22, 56, 89)
 K4A_K6_PASS_KERNELS = ("split_spectra", "noise_first_pass", "boot_whiten",
@@ -3392,6 +3433,55 @@ def recording25(cf, torch, launches, hold_split=True):
                              f"passes: {passes}")
     log(f"{name}: K4a's, K6's and K1's radix-2 pass kernels in the trace: "
         f"{', '.join(f'{k} {dev[k]:.3f}' for k in passes) or 'none'}")
+    return dev
+
+
+# Step 3d's recording: 4 mics x 800 s at 44.1 kHz (no resampling; 35.28 M
+# samples a mic, ~565 MB of WAV files) with ``REC23_DELAYS``, whose GCC and
+# noise null transform at 2^27 under ``max_expected_delay=None``: K4a and
+# K6 on the three-pass split, K1 on its radix-2 passes.
+REC27_SECONDS = 800
+
+
+def recording27(cf, torch, launches, hold_split=True):
+    """Step 3d: 4 mics x 800 s at 44.1 kHz of a seeded noise source with
+    whole-sample delays (``REC23_DELAYS``), written by the port's write_wav
+    and read back without resampling, localized under
+    ``max_expected_delay=None`` with the noise null at ``LONG_DRAWS`` draws
+    a pair (384 draws of 35,280,000 samples): nfft 2^27, K4a and K6 on the
+    three-pass split (``cuda_fft.long_plan``), K1 on its radix-2 passes.
+    Each TDOA within 0.5 samples of its injected delay; then a second,
+    warm call's wall time and one more call's device time by kernel
+    (``torch.profiler``), which holds no kernel of K4a's or K6's radix-2
+    passes (``K4A_K6_PASS_KERNELS``; K1's are logged; ``hold_split``
+    False only logs them, for an A/B against a tree that runs them).  The
+    files' directory is removed afterwards.  Returns the device time by
+    kernel."""
+    import os
+    import shutil
+    from pyaudiolocalization_tpu_torch import api
+    n = int(FS) * REC27_SECONDS
+    paths = _noise_recording(800, FS, n, REC23_DELAYS, "chip_smoke_rec27_")
+    try:
+        nfft = api._physical_nfft(n, FS, None)
+        name = (f"the {REC27_SECONDS} s recording at 44.1 kHz (noise null, "
+                "max_expected_delay=None)")
+        log(f"{name}: nfft {nfft}, K4a's and K6's schedule n1="
+            f"{cf._split_n1(nfft)}, K1's n1={cf.gcc_route(nfft, 4).n1}")
+        if nfft != PASSES27[1]:
+            raise AssertionError(f"{name} misses nfft {PASSES27[1]}")
+        dev = _localize_recording(cf, torch, launches, name, paths, None,
+                                  _pair_delays(REC23_DELAYS), "files")
+    finally:
+        shutil.rmtree(os.path.dirname(paths[0]), ignore_errors=True)
+    passes = [k for k in dev if any(p in k for p in K4A_K6_PASS_KERNELS)]
+    if passes and hold_split:
+        raise AssertionError(f"{name} ran K4a's or K6's radix-2 passes: "
+                             f"{passes}")
+    k1 = [k for k in dev if any(p in k for p in K1_PASS_KERNELS)]
+    log(f"{name}: K4a's and K6's radix-2 pass kernels in the trace: "
+        f"{', '.join(f'{k} {dev[k]:.3f}' for k in passes) or 'none'}; "
+        f"K1's: {', '.join(f'{k} {dev[k]:.3f}' for k in k1) or 'none'}")
     return dev
 
 
@@ -3674,6 +3764,8 @@ def recorded_phase(cf, torch, golden, sweep_golden, launches):
         recording23(cf, torch, launches)
     with profiling.stage("phase 10: the 200 s recording at 2^25"):
         recording25(cf, torch, launches)
+    with profiling.stage("phase 10: the 800 s recording at 2^27"):
+        recording27(cf, torch, launches)
     with profiling.stage("phase 10: the spectra routes' recordings"):
         spectra_recordings(cf, torch, launches)
     with profiling.stage("phase 10: compat on the card"):

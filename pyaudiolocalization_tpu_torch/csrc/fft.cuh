@@ -11,9 +11,11 @@
 //    shared memory a block can hold, so every pass streams the rows
 //    through device memory (and the 50 MB L2): 16 bytes per point per
 //    pass, about 16 * log2(n) bytes per point and transform, and one
-//    launch per pass.  Every transforming kernel (K1, K2, K3, K4a, K4b,
-//    K5, K6 and K9) runs on it above 2^26 only; they fuse their first or
-//    last pass into a prologue or epilogue.
+//    launch per pass.  The spectra routes' kernels (K1, K2, K3, K5 and
+//    K9) run on it above 2^26 only; they fuse their first or last pass
+//    into a prologue or epilogue.  K4a, K4b and K6 no longer run it: above
+//    2^26, to 2^30, they take a three-pass split (`long_forward` in
+//    kernels.cu).
 //
 // 2. On-chip sub-transforms (`block_fft`): one block transforms S
 //    sequences of length L (L * S <= kElems * 1024) held in shared memory,
@@ -38,7 +40,8 @@
 //    2048 x 2048 with strips of 8 where 16 would pass kElems * 1024
 //    points, and for all of them up to 4096 x 4096, the long side in the
 //    rows (2048 x 4096 at 2^23), with strips of 4 at 4,096, and for K4a,
-//    K4b and K6 up to 8192 x 8192 with strips of 2 at 8,192); the
+//    K4b and K6 up to 8192 x 8192 with strips of 2 at 8,192, and on to
+//    2^30 with n1 split again, two column passes of 16 columns); the
 //    length-n2 rows of a (n2, 128) plane are one (K10b, and K10a with its
 //    radix-16 stages on the tensor cores), and so are the 128-point lane
 //    DFTs of 32 of its rows (K10c).

@@ -310,7 +310,8 @@ cudaError_t with_split_strip(int strip, int n2, Launch launch) {
 // rows n1 - k1 (row n1/2 in the slot of row 0's) are rows of n1.  Bound:
 // device memory, 32 bytes a point of the packed rows over the split (pass
 // 1 writes Y, pass 2 reads it: 16 each way) besides the rows' read and the
-// spectra's write.
+// spectra's write.  Above 2^26 pass 1 is two passes, A and B, of the
+// three-pass split (`long_forward`), and pass 2 follows as at 2^26.
 
 // The sequence stride (in float2) of a strip of S rows of n2 points in
 // K4a's pass 2 and K4b's and K6's row pass: n2 + 16 / S up to 16 rows,
@@ -669,26 +670,6 @@ fft_real_rows(const float2* __restrict__ y, int rows, int n1, int n2,
   }
 }
 
-// K4a above 2^26 (n1 = 0), after the radix-2 passes: packed natural-order
-// rows z (ceil(rows/2), n) -> the two real spectra, bins 0..n/2 of rows
-// 2c and 2c+1 of out (rows, n/2 + 1).  The split's bound holds: one read
-// of the packed row and one write of each spectrum.
-__global__ void split_spectra(const float2* __restrict__ z, int rows, int n,
-                              float2* __restrict__ out) {
-  const int c = blockIdx.y;
-  const int bins = (n >> 1) + 1;
-  const bool two = 2 * c + 1 < rows;
-  const float2* row = z + (size_t)c * (size_t)n;
-  float2* oa = out + (size_t)(2 * c) * (size_t)bins;
-  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < bins;
-       k += gridDim.x * blockDim.x) {
-    const float2 zk = row[k];
-    const float2 zm = row[(n - k) & (n - 1)];
-    oa[k] = split_bin(zk, zm, 0);
-    if (two) oa[bins + k] = split_bin(zk, zm, 1);
-  }
-}
-
 // Pass 2 with S = s2 (2, 4, 8, 16, 32 or 64).
 int fft_real_rows_launch(const float2* y, int rows, int n1, int n2, int s2,
                          const float2* tw, float2* out, cudaStream_t s) {
@@ -861,11 +842,11 @@ __global__ void last_pass_window(const float2* __restrict__ in,
 // mirrored, whose inverse column DFTs end in the maxima.  A maximum does
 // not depend on where a sample lies, so the output of the inverse is never
 // put in natural order.  For n <= 4096 one block holds the packed row
-// (`boot_block`); above 2^26 the radix-2 passes of `boot_stage` run
-// instead.  K6 is the same pipeline with its rows drawn by the loader
-// (`NoiseLoad`) where K4b reads them (`RowLoad`).  Bound: device memory,
-// one read of the rows and two reads and two writes of the packed buffer
-// (32 bytes a point of the packed rows over the split).
+// (`boot_block`); above 2^26 the three-pass split's five launches run
+// instead (`boot_long`).  K6 is the same pipeline with its rows drawn by
+// the loader (`NoiseLoad`) where K4b reads them (`RowLoad`).  Bound:
+// device memory, one read of the rows and two reads and two writes of the
+// packed buffer (32 bytes a point of the packed rows over the split).
 //
 // The strips: up to 2^20 (n1, n2 <= 1,024) 16 columns in both column
 // passes and 16 rows in the row pass.  At 2^21 (2,048 x 1,024) and 2^22
@@ -882,7 +863,7 @@ __global__ void last_pass_window(const float2* __restrict__ in,
 // one row k1 and its partner) and 8,192 x 8,192 at 2^26 (2 and 2) hold
 // the n2-point table hi in device memory (`HiTable`; 180,224 / 196,736
 // and 229,376 / 229,504 bytes); `boot_cols` holds no hi table at any
-// length.  Above 2^26 the passes.
+// length.  Above 2^26 the three-pass split (`boot_long`).
 
 // In place, bins q <= n/2 (at zq) and n - q (at zm; the same place for q
 // = 0 and n/2) of the packed forward spectrum -> the packed whitened
@@ -1257,76 +1238,318 @@ cudaError_t boot_split(const float2* s1, Load load, int rows, int n, int n1,
   });
 }
 
-// In place: packed row spectra -> packed whitened cross-spectra against s1
-// (the radix-2 pipeline of `boot_stage`).
-__global__ void boot_whiten(const float2* __restrict__ s1, float eps, int n,
-                            float2* __restrict__ z) {
+// ---- K4a, K4b and K6 above 2^26: the three-pass split --------------------
+//
+// Above 2^26, to 2^30 (``cuda_fft.FFT_LONG_MAX``), n = n1 * n2 keeps the
+// row side of 2^26, n2 = 8,192: a row pass holds row k1 and its partner n1
+// - k1, 2 x 8,192 = kElems * 1024 points, so n2 cannot grow.  The columns
+// grow instead, n1 = 16,384 at 2^27 to 131,072 at 2^30, where a column
+// pass could hold one column a strip, a quarter of a 32-byte sector a row.
+// So the n1-point column DFTs split again, n1 = n1a * n1b, j1 = n1b j1a +
+// j1b and k1 = k1a + n1a k1b:
+//   sum_j1 W_n1^{j1 k1} z[j1] = sum_j1b W_n1b^{j1b k1b} W_n1^{j1b k1a}
+//                               * sum_j1a W_n1a^{j1a k1a} z[n1b j1a + j1b],
+// two column passes whose strips hold S = kStrip columns j2, 128 bytes of
+// each row they read or write (``cuda_fft.long_plan``).  Row r of a packed
+// row's buffer holds its points r n2 .. r n2 + n2 - 1.  Pass A
+// (`long_cols_a`): block (j1b, strip), the n1a-point DFTs over j1a of the
+// loader's points n2 (n1b j1a + j1b) + j2, times W_n1^{j1b k1a}, to row k1a
+// + n1a j1b.  Pass B (`long_cols_b`): block (k1a, strip), the n1b-point
+// DFTs over j1b of rows k1a + n1a j1b, times W_n^{j2 k1}, to row k1 = k1a
+// + n1a k1b: the rows it read (in place), and Y[k1, j2] as `fft_real_cols`
+// writes it, so that K4a's pass 2 (`fft_real_rows`, strips of 2 rows at
+// n2 = 8,192) follows as at 2^26.  K4b and K6 run `boot_rows_long` there
+// (`boot_rows` without the inverse twiddle), then the two passes mirrored:
+// B' (`long_cols_b` inverse: times W_n^{-j2 k1}, the inverse n1b-point
+// DFTs, back to rows k1a + n1a j1b) and A' (`long_cols_max`: times
+// W_n1^{-j1b k1a}, the inverse n1a-point DFTs and the maxima, as
+// `boot_cols`).  The sub-twiddles come from the n1a- and n1b-point half
+// tables after the n-, n1- and n2-point ones (``cuda_fft._twiddles``);
+// W_n1^e from the n1-point half table and W_n^e as W_n2^{e / n1} W_n^{e mod
+// n1}, `split_twiddle`'s product, both through the read-only path (n1
+// points do not fit beside a strip in shared memory).  Bound: device
+// memory, 16 bytes a point of the packed rows a pass.
+
+// The half tables of the three-pass split at n = n1a * n1b * n2 after the
+// n-point one: W_n1, W_n2, W_n1a, W_n1b.
+struct LongTables {
+  const float2* n1;
+  const float2* n2;
+  const float2* a;
+  const float2* b;
+};
+
+__device__ __forceinline__ LongTables long_tables(const float2* tw, int n1a,
+                                                  int n1b, int n2) {
+  const int n1 = n1a * n1b;
+  const float2* t1 = tw + (((size_t)n1 * n2) >> 1);
+  const float2* t2 = t1 + (n1 >> 1);
+  const float2* ta = t2 + (n2 >> 1);
+  return {t1, t2, ta, ta + (n1a >> 1)};
+}
+
+// W_n^e, e < n = n1 * n2: `split_twiddle`'s product W_n2^{e / n1} W_n^{e
+// mod n1}, lo read from the n-point table's first n1 entries.
+__device__ __forceinline__ float2 long_twiddle(const float2* __restrict__ tw,
+                                               const HiTable& hi, int e,
+                                               int n1) {
+  return cmul(hi[e >> (__ffs(n1) - 1)], __ldg(tw + (e & (n1 - 1))));
+}
+
+// Pass A.  Grid (n1b * n2 / S blocks (j1b, strip), packed rows).
+template <class Load, int S>
+__global__ void __launch_bounds__(1024)
+long_cols_a(Load load, int n1a, int n1b, int n2, const float2* __restrict__ tw,
+            float2* __restrict__ y) {
+  using palt::kElems;
+  float2* stw = palt::fft_shared();
+  float2* buf = stw + (n1a >> 1);
   const int c = blockIdx.y;
-  const int half = n >> 1;
-  float2* row = z + (size_t)c * (size_t)n;
-  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k <= half;
-       k += gridDim.x * blockDim.x) {
-    const float2 a = s1[k];
-    const float2 xa = unpack_bin(row, 0, k, n);
-    const float2 xb = unpack_bin(row, 1, k, n);
-    store_packed(row, k, n, whiten(a, xa, eps), whiten(a, xb, eps));
+  const int strips = n2 / S;
+  const int j1b = blockIdx.x / strips;
+  const int c0 = (blockIdx.x - j1b * strips) * S;
+  const LongTables t = long_tables(tw, n1a, n1b, n2);
+  const auto src = load.row(c);
+  palt::stage_twiddles(stw, t.a, n1a, 1);
+  const int total = n1a * S;
+  float2 v[kElems];
+#pragma unroll
+  for (int u = 0; u < kElems; ++u) {
+    const int idx = threadIdx.x + u * blockDim.x;
+    v[u] = idx < total ? src((n1b * (idx / S) + j1b) * n2 + c0 + idx % S)
+                       : make_float2(0.0f, 0.0f);
+  }
+#pragma unroll
+  for (int u = 0; u < kElems; ++u) {
+    const int idx = threadIdx.x + u * blockDim.x;
+    if (idx < total) buf[idx] = v[u];
+  }
+  palt::block_fft<S>(buf, S, 1, n1a, stw, 1.0f);
+  const HiTable w1{t.n1, (n1a * n1b) >> 1};
+  float2* yc = y + (size_t)c * n1a * n1b * n2;
+  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+    const int k1a = idx / S;
+    yc[(size_t)(k1a + n1a * j1b) * n2 + c0 + idx % S] =
+        cmul(buf[idx], w1[j1b * k1a]);
   }
 }
 
-// The last inverse pass fused with the per-row maximum: one block per
-// packed row; the correlation itself is never written.
-__global__ void last_pass_max(const float2* __restrict__ in,
-                              const float2* __restrict__ tw, int n,
-                              int rows, float scale,
-                              float* __restrict__ out) {
-  __shared__ float shared[32];
-  const int c = blockIdx.x;
-  const int half = n >> 1;  // final pass: k = i, twiddle tw[i], j = i
-  const float2* x = in + (size_t)c * (size_t)n;
+// Pass B, forward, or B' (kInverse).  Grid (n1a * n2 / S blocks (k1a,
+// strip), packed rows); the block reads and writes rows k1a + n1a q, q <
+// n1b, of its strip.
+template <int S, bool kInverse>
+__global__ void __launch_bounds__(1024)
+long_cols_b(int n1a, int n1b, int n2, const float2* __restrict__ tw,
+            float2* y) {
+  using palt::kElems;
+  float2* stw = palt::fft_shared();
+  float2* buf = stw + (n1b >> 1);
+  const int n1 = n1a * n1b;
+  const int c = blockIdx.y;
+  const int strips = n2 / S;
+  const int k1a = blockIdx.x / strips;
+  const int c0 = (blockIdx.x - k1a * strips) * S;
+  const LongTables t = long_tables(tw, n1a, n1b, n2);
+  palt::stage_twiddles(stw, t.b, n1b, 1);
+  const HiTable hi{t.n2, n2 >> 1};
+  float2* yc = y + (size_t)c * n1 * n2;
+  const int total = n1b * S;
+  float2 v[kElems];
+#pragma unroll
+  for (int u = 0; u < kElems; ++u) {
+    const int idx = threadIdx.x + u * blockDim.x;
+    v[u] = idx < total
+               ? yc[(size_t)(k1a + n1a * (idx / S)) * n2 + c0 + idx % S]
+               : make_float2(0.0f, 0.0f);
+  }
+#pragma unroll
+  for (int u = 0; u < kElems; ++u) {
+    const int idx = threadIdx.x + u * blockDim.x;
+    if (idx < total) {
+      if constexpr (kInverse) {
+        const int j2 = c0 + idx % S;
+        float2 w = long_twiddle(tw, hi, j2 * (k1a + n1a * (idx / S)), n1);
+        w.y = -w.y;
+        buf[idx] = cmul(v[u], w);
+      } else {
+        buf[idx] = v[u];
+      }
+    }
+  }
+  palt::block_fft<S>(buf, S, 1, n1b, stw, kInverse ? -1.0f : 1.0f);
+  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+    const int row = k1a + n1a * (idx / S);
+    const int j2 = c0 + idx % S;
+    yc[(size_t)row * n2 + j2] =
+        kInverse ? buf[idx]
+                 : cmul(buf[idx], long_twiddle(tw, hi, j2 * row, n1));
+  }
+}
+
+// Pass A' with the maxima, `boot_cols` of the three-pass split.  Grid as
+// pass A's: rows k1a + n1a j1b of the strip times W_n1^{-j1b k1a}, the
+// inverse n1a-point DFTs (samples n2 (n1b j1a + j1b) + j2 of the packed
+// inverse), the block's maxima of their real and imaginary parts, times
+// 1/n, into out[2c] and out[2c + 1] (`atomic_max_float`).
+template <int S>
+__global__ void __launch_bounds__(1024)
+long_cols_max(const float2* __restrict__ y, int rows, int n1a, int n1b,
+              int n2, const float2* __restrict__ tw, float* out) {
+  using palt::kElems;
+  float2* stw = palt::fft_shared();
+  float2* buf = stw + (n1a >> 1);
+  float* red = reinterpret_cast<float*>(buf + n1a * S);
+  const int c = blockIdx.y;
+  const int strips = n2 / S;
+  const int j1b = blockIdx.x / strips;
+  const int c0 = (blockIdx.x - j1b * strips) * S;
+  const LongTables t = long_tables(tw, n1a, n1b, n2);
+  palt::stage_twiddles(stw, t.a, n1a, 1);
+  const HiTable w1{t.n1, (n1a * n1b) >> 1};
+  const float2* yc = y + (size_t)c * n1a * n1b * n2;
+  const int total = n1a * S;
+  float2 v[kElems];
+#pragma unroll
+  for (int u = 0; u < kElems; ++u) {
+    const int idx = threadIdx.x + u * blockDim.x;
+    v[u] = idx < total
+               ? yc[(size_t)(idx / S + n1a * j1b) * n2 + c0 + idx % S]
+               : make_float2(0.0f, 0.0f);
+  }
+#pragma unroll
+  for (int u = 0; u < kElems; ++u) {
+    const int idx = threadIdx.x + u * blockDim.x;
+    if (idx < total) {
+      float2 w = w1[j1b * (idx / S)];
+      w.y = -w.y;
+      buf[idx] = cmul(v[u], w);
+    }
+  }
+  palt::block_fft<S>(buf, S, 1, n1a, stw, -1.0f);
   float mre = -INFINITY;
   float mim = -INFINITY;
-  for (int i = threadIdx.x; i < half; i += blockDim.x) {
-    float2 w = tw[i];
-    w.y = -w.y;
-    const float2 a = x[i];
-    const float2 b = cmul(x[i + half], w);
-    mre = fmaxf(mre, fmaxf(a.x + b.x, a.x - b.x));
-    mim = fmaxf(mim, fmaxf(a.y + b.y, a.y - b.y));
+  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+    mre = fmaxf(mre, buf[idx].x);
+    mim = fmaxf(mim, buf[idx].y);
   }
-  mre = block_max(mre, shared);
-  mim = block_max(mim, shared);
+  mre = block_max(mre, red);
+  mim = block_max(mim, red);
   if (threadIdx.x == 0) {
-    out[2 * c] = mre * scale;
-    if (2 * c + 1 < rows) out[2 * c + 1] = mim * scale;
+    const float scale = 1.0f / ((float)n1a * (float)n1b * (float)n2);
+    atomic_max_float(out + 2 * c, mre * scale);
+    if (2 * c + 1 < rows) atomic_max_float(out + 2 * c + 1, mim * scale);
   }
 }
 
-// ---- K6 above 2^26: the draws in the first radix-2 pass -----------------
-
-// The first forward Stockham pass (p = 1, twiddle 1: y[2i] = x[i] +
-// x[i + n/2], y[2i + 1] = their difference) over packed row c = draws 2c
-// and 2c+1, with both points drawn instead of read.  This replaces K4b's
-// row load: the rows never exist in device memory; the only input is the
-// seeds.  Past n_samp the second point is zero and the butterfly copies.
-__global__ void noise_first_pass(const int* __restrict__ seeds, int rows,
-                                 int n_samp, int n, float2* __restrict__ z) {
+// K4b's and K6's row pass of the three-pass split: `boot_rows` at n2 =
+// 8,192 in strips of S = 2 rows (row k1 and its partner; block 0 rows 0
+// and n1/2) and 512 threads, the rows written back without the inverse
+// twiddle, which pass B' takes: so it holds no n1-point table (128 KB at
+// 2^27, too many beside the strip), only the n2-point sub-twiddles.
+template <int S>
+__global__ void __launch_bounds__(512, 1)
+boot_rows_long(const float2* __restrict__ s1, int rows, int n1, int n2,
+               float eps, const float2* __restrict__ tw, float2* y,
+               float* __restrict__ out) {
+  constexpr int E = 2 * palt::kElems;
+  float2* stw = palt::fft_shared();
+  float2* buf = stw + (n2 >> 1);
+  const int ld = row_ld<S>(n2);  // conflict-free half-warps
+  const int n = n1 * n2;
   const int c = blockIdx.y;
-  const int ra = 2 * c;
-  const int rb = 2 * c + 1;
-  const bool two = rb < rows;
-  const uint32_t a0 = (uint32_t)seeds[2 * ra];
-  const uint32_t a1 = (uint32_t)seeds[2 * ra + 1];
-  const uint32_t b0 = two ? (uint32_t)seeds[2 * rb] : 0u;
-  const uint32_t b1 = two ? (uint32_t)seeds[2 * rb + 1] : 0u;
-  const int half = n >> 1;
-  float2* y = z + (size_t)c * (size_t)n;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < half;
-       i += gridDim.x * blockDim.x) {
-    const float2 u = noise_point(i, n_samp, two, a0, a1, b0, b1);
-    const float2 v = noise_point(i + half, n_samp, two, a0, a1, b0, b1);
-    y[2 * i] = make_float2(u.x + v.x, u.y + v.y);
-    y[2 * i + 1] = make_float2(u.x - v.x, u.y - v.y);
+  const int b = blockIdx.x;
+  if (b == 0 && threadIdx.x == 0) {
+    out[2 * c] = -INFINITY;
+    if (2 * c + 1 < rows) out[2 * c + 1] = -INFINITY;
   }
+  stage_split_twiddles<1>(stw, tw, n1, n2, true);
+  float2* yc = y + (size_t)c * n;
+  load_rows<S, E>(yc, buf, b, n1, n2, ld);
+  palt::block_fft_inline<S, palt::Radix16<S, E>, E>(buf, 1, ld, n2, stw,
+                                                    1.0f);
+  const int tasks = pair_tasks<S>(b, n2);
+  for (int t = threadIdx.x; t < tasks; t += blockDim.x) {
+    const PairTask p = pair_task<S>(t, b, n1, n2, ld);
+    boot_pair(s1, buf + p.zq, buf + p.zm, p.q, n, eps);
+  }
+  palt::block_fft_inline<S, palt::Radix16<S, E>, E>(buf, 1, ld, n2, stw,
+                                                    -1.0f);
+  const int shift = __ffs(n2) - 1;
+  for (int idx = threadIdx.x; idx < S * n2; idx += blockDim.x) {
+    const int r = idx >> shift;
+    const int j2 = idx & (n2 - 1);
+    yc[(size_t)pair_row(b, r, n1, S / 2) * n2 + j2] = buf[r * ld + j2];
+  }
+}
+
+// Pass B (forward) or B' over `packed` rows of buf.
+template <bool kInverse>
+cudaError_t long_cols_b_launch(int packed, int n1a, int n1b, int n2,
+                               const float2* tw, float2* buf,
+                               cudaStream_t s) {
+  constexpr int S = palt::kStrip;
+  const cudaError_t err = palt::allow_smem<long_cols_b<S, kInverse>>();
+  if (err != cudaSuccess) return err;
+  long_cols_b<S, kInverse><<<dim3(n1a * (n2 / S), packed),
+                             palt::fft_threads(n1b, S),
+                             (n1b / 2 + n1b * S) * (int)sizeof(float2), s>>>(
+      n1a, n1b, n2, tw, buf);
+  return cudaGetLastError();
+}
+
+// The three-pass split's forward column passes (K4a's, K4b's and K6's
+// first two) over `packed` rows of load into buf: pass A, then pass B, in
+// strips of cs = kStrip columns (``cuda_fft.long_plan``).
+template <class Load>
+cudaError_t long_forward(Load load, int packed, int n1a, int n1b, int n2,
+                         int cs, const float2* tw, float2* buf,
+                         cudaStream_t s) {
+  constexpr int S = palt::kStrip;
+  if (cs != S) return cudaErrorInvalidValue;
+  cudaError_t err = palt::allow_smem<long_cols_a<Load, S>>();
+  if (err != cudaSuccess) return err;
+  long_cols_a<Load, S><<<dim3(n1b * (n2 / S), packed),
+                         palt::fft_threads(n1a, S),
+                         (n1a / 2 + n1a * S) * (int)sizeof(float2), s>>>(
+      load, n1a, n1b, n2, tw, buf);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return long_cols_b_launch<false>(packed, n1a, n1b, n2, tw, buf, s);
+}
+
+// K4b / K6 on the three-pass split (n = n1 * n2, n1 = n1a * n1b) for rows
+// given by load: passes A and B, `boot_rows_long` (rs = 2 rows a strip),
+// B' and A' with the maxima, through buf (ceil(rows/2), n) in place.
+template <class Load>
+cudaError_t boot_long(const float2* s1, Load load, int rows, int n, int n1,
+                      int n1a, int cs, int rs, float eps, const float2* tw,
+                      float2* buf, float* out, cudaStream_t s) {
+  constexpr int S = palt::kStrip;
+  constexpr int kRows = 2;
+  const int n2 = n / n1;
+  const int n1b = n1 / n1a;
+  const int packed = (rows + 1) / 2;
+  if (rs != kRows) return cudaErrorInvalidValue;
+  cudaError_t err = long_forward(load, packed, n1a, n1b, n2, cs, tw, buf, s);
+  if (err != cudaSuccess) return err;
+  err = palt::allow_smem<boot_rows_long<kRows>>();
+  if (err != cudaSuccess) return err;
+  boot_rows_long<kRows><<<dim3(n1 / kRows, packed),
+                          palt::fft_threads(n2, kRows) / 2,
+                          (n2 / 2 + kRows * row_ld<kRows>(n2)) *
+                              (int)sizeof(float2),
+                          s>>>(s1, rows, n1, n2, eps, tw, buf, out);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = long_cols_b_launch<true>(packed, n1a, n1b, n2, tw, buf, s);
+  if (err != cudaSuccess) return err;
+  err = palt::allow_smem<long_cols_max<S>>();
+  if (err != cudaSuccess) return err;
+  const int red = 16 * (int)sizeof(float2);  // block_max's 32 floats
+  long_cols_max<S><<<dim3(n1b * (n2 / S), packed), palt::fft_threads(n1a, S),
+                     (n1a / 2 + n1a * S) * (int)sizeof(float2) + red, s>>>(
+      buf, rows, n1a, n1b, n2, tw, out);
+  return cudaGetLastError();
 }
 
 // ---- K7: PHAT whitening of complex spectra -------------------------------
@@ -3073,26 +3296,6 @@ void window_stage(const float2* spec, int scenes, int mics,
                                                 1.0f / (float)n, win, stats);
 }
 
-// K6's pipeline (and K4b's above 2^26) on the radix-2 passes, after buf0
-// holds the rows (packed two to a complex row) with their first `done`
-// forward passes applied: the other
-// forward passes, whitening against s1 in place, the packed inverse with
-// its last pass fused with the row maxima.
-void boot_stage(const float2* s1, int rows, int n, float eps, int done,
-                const float2* tw, float2* buf0, float2* buf1, float* out,
-                cudaStream_t s) {
-  const int packed = (rows + 1) / 2;
-  const int passes = log2_int(n);
-  float2* spec = fft_rows(buf0, buf1, tw, n, packed, 0, passes - done, s,
-                          1 << done);
-  boot_whiten<<<dim3(bin_blocks(n), packed), kThreads, 0, s>>>(s1, eps, n,
-                                                                spec);
-  float2* other = spec == buf0 ? buf1 : buf0;
-  float2* part = fft_rows(spec, other, tw, n, packed, 1, passes - 1, s);
-  last_pass_max<<<packed, kRowThreads, 0, s>>>(part, tw, n, rows,
-                                               1.0f / (float)n, out);
-}
-
 }  // namespace
 
 #define PALT_CHECK()                          \
@@ -3104,38 +3307,28 @@ void boot_stage(const float2* s1, int rows, int n, float eps, int done,
 extern "C" {
 
 // K4a: x (rows, len) -> out (rows, n/2+1) complex, natural order.  n1 = 1:
-// one block per packed row (n <= 4096); n1 = 0 (n > 2^26): the packed
-// rows, log2(n) radix-2 passes through buf's two halves of ceil(rows/2)
-// rows each, and `split_spectra`; else the two passes of the four-step
-// split n = n1 * n2 through buf (ceil(rows/2), n) complex (n1 < n2 above
-// 2^22), pass 1 with strips of cs (16, 8, 4 or 2) columns, pass 2 with
-// strips of s2 (2, 4, 8, 16, 32 or 64) rows.
+// one block per packed row (n <= 4096); else the four-step split n = n1 *
+// n2 through buf (ceil(rows/2), n) complex: up to 2^26 (n1a = 0) its two
+// passes, pass 1 with strips of cs (16, 8, 4 or 2) columns (n1 < n2 above
+// 2^22); above (n1a > 0) the three-pass split's passes A and B, n1 = n1a *
+// n1b, strips of cs = 16 columns; then pass 2 with strips of s2 (2, 4, 8,
+// 16, 32 or 64) rows.
 int palt_fft_real(const float* x, int rows, int len, int n, int n1, int cs,
-                  int s2, const float2* tw, float2* buf, float2* out,
-                  void* stream) {
+                  int s2, int n1a, const float2* tw, float2* buf,
+                  float2* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int packed = (rows + 1) / 2;
-  if (n1 == 0) {
-    pack_rows<<<dim3(palt::pass_blocks(n), packed), kThreads, 0, s>>>(
-        x, rows, len, len, n, buf);
-    PALT_CHECK();
-    const float2* spec = fft_rows(buf, buf + (size_t)packed * n, tw, n,
-                                  packed, 0, log2_int(n), s);
-    PALT_CHECK();
-    split_spectra<<<dim3(bin_blocks(n), packed), kThreads, 0, s>>>(
-        spec, rows, n, out);
-    PALT_CHECK();
-    return 0;
-  }
+  const RowLoad load{x, rows, len};
   if (n1 == 1)
-    return (int)fft_real_block_launch(RowLoad{x, rows, len}, rows, n, tw, out,
-                                      s);
+    return (int)fft_real_block_launch(load, rows, n, tw, out, s);
   const int n2 = n / n1;
   const cudaError_t err =
-      with_split_strip(cs, n2, [&](auto strip, auto hi) {
-        return cols_launch<decltype(strip)::value, decltype(hi)::value>(
-            RowLoad{x, rows, len}, packed, n1, n2, tw, buf, s);
-      });
+      n1a > 0
+          ? long_forward(load, packed, n1a, n1 / n1a, n2, cs, tw, buf, s)
+          : with_split_strip(cs, n2, [&](auto strip, auto hi) {
+              return cols_launch<decltype(strip)::value, decltype(hi)::value>(
+                  load, packed, n1, n2, tw, buf, s);
+            });
   if (err != cudaSuccess) return (int)err;
   return fft_real_rows_launch(buf, rows, n1, n2, s2, tw, out, s);
 }
@@ -3246,52 +3439,38 @@ int palt_gcc_windowed(const float* x, int scenes, int mics, int len, int n,
 
 // K4b: s1 (n/2+1) complex, rows x (rows, len) -> out (rows,) maxima of the
 // PHAT correlations between s1's signal and each row.  n1 = 1: one block
-// per packed row (n <= 4096), no buffer; n1 = 0: the radix-2 passes (n >
-// 2^26) through buf's two halves of ceil(rows/2) rows each; else the three
-// launches of the split n = n1 * n2 through buf (ceil(rows/2), n) in
-// place, the column passes with strips of cs columns and the row pass
-// with strips of rs rows (16, 8, 4 or 2 each).
+// per packed row (n <= 4096), no buffer; else the split n = n1 * n2
+// through buf (ceil(rows/2), n) in place: up to 2^26 (n1a = 0) its three
+// launches, the column passes with strips of cs columns and the row pass
+// with strips of rs rows (16, 8, 4 or 2 each); above (n1a > 0) the
+// three-pass split's five, n1 = n1a * n1b, cs = 16 and rs = 2.
 int palt_bootstrap_peaks(const float2* s1, const float* x, int rows, int len,
-                         int n, int n1, int cs, int rs, float eps,
+                         int n, int n1, int cs, int rs, int n1a, float eps,
                          const float2* tw, float2* buf, float* out,
                          void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n1 == 0) {
-    const int packed = (rows + 1) / 2;
-    pack_rows<<<dim3(palt::pass_blocks(n), packed), kThreads, 0, s>>>(
-        x, rows, len, len, n, buf);
-    PALT_CHECK();
-    boot_stage(s1, rows, n, eps, 0, tw, buf, buf + (size_t)packed * n, out,
-               s);
-    PALT_CHECK();
-    return 0;
-  }
-  return (int)boot_split(s1, RowLoad{x, rows, len}, rows, n, n1, cs, rs, eps,
-                         tw, buf, out, s);
+  const RowLoad load{x, rows, len};
+  if (n1a > 0)
+    return (int)boot_long(s1, load, rows, n, n1, n1a, cs, rs, eps, tw, buf,
+                          out, s);
+  return (int)boot_split(s1, load, rows, n, n1, cs, rs, eps, tw, buf, out, s);
 }
 
 // K6: s1 (n/2+1) complex, seeds (rows, 2) int32 -> out (rows,) maxima of
 // the PHAT correlations between s1's signal and `rows` in-kernel uniform
 // noise draws of n_samp samples each, zero-padded to n: K4b's schedules
-// and buffer (n1, cs, rs and buf as there) with the draws made by the
-// loader; the passes (n1 = 0) draw in their first pass.
+// and buffer (n1, cs, rs, n1a and buf as there) with the draws made by the
+// loader.
 int palt_noise_bootstrap_peaks(const float2* s1, const int* seeds, int rows,
                                int n_samp, int n, int n1, int cs, int rs,
-                               float eps, const float2* tw, float2* buf,
-                               float* out, void* stream) {
+                               int n1a, float eps, const float2* tw,
+                               float2* buf, float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n1 == 0) {
-    const int packed = (rows + 1) / 2;
-    noise_first_pass<<<dim3(palt::pass_blocks(n), packed), kThreads, 0,
-                       s>>>(seeds, rows, n_samp, n, buf);
-    PALT_CHECK();
-    boot_stage(s1, rows, n, eps, 1, tw, buf, buf + (size_t)packed * n, out,
-               s);
-    PALT_CHECK();
-    return 0;
-  }
-  return (int)boot_split(s1, NoiseLoad{seeds, rows, n_samp}, rows, n, n1, cs,
-                         rs, eps, tw, buf, out, s);
+  const NoiseLoad load{seeds, rows, n_samp};
+  if (n1a > 0)
+    return (int)boot_long(s1, load, rows, n, n1, n1a, cs, rs, eps, tw, buf,
+                          out, s);
+  return (int)boot_split(s1, load, rows, n, n1, cs, rs, eps, tw, buf, out, s);
 }
 
 // K7: z (count) complex -> out (count) = z / (|z| + eps); out may be z.

@@ -7,20 +7,22 @@ for K7):
 ===================== ====================================== ==================
 wrapper               replaces                               bound on an H100
 ===================== ====================================== ==================
-fft_real              bfly_fft_real (:685)                   memory: 2 launches*
+fft_real              bfly_fft_real (:685)                   memory: 2 or 3*
 whitened_corr         bfly_whitened_corr (:707)              memory: 2 launches*
 gcc_all_pairs         bfly_gcc_all_pairs (:922)              memory: 1 to 4*
 gcc_windowed          bfly_gcc_windowed (:1095)              memory: 1 to 4*
-bootstrap_peaks       bfly_bootstrap_peaks (:1227)           memory: 3 launches
-noise_bootstrap_peaks bfly_noise_bootstrap_peaks (:1326)     memory: 3 launches
+bootstrap_peaks       bfly_bootstrap_peaks (:1227)           memory: 3 or 5*
+noise_bootstrap_peaks bfly_noise_bootstrap_peaks (:1326)     memory: 3 or 5*
 scene_windowed        bfly_scene_windowed (:1600)            memory: 2 to 12*
 delay_sum             bfly_delay_sum (:1851)                 memory: 1 to 8*
 whiten                pallas_kernels.phat_whiten_planes (:34) memory: 16 B/bin
 ===================== ====================================== ==================
 
-(*) Above 2^26 points every transforming kernel runs the radix-2 passes
-(K4a: the packing, log2(nfft) passes and the split into the two spectra,
-2 + log2(nfft) launches).  K1, K2 and K5's GCC
+(*) Above 2^26 points, to ``FFT_LONG_MAX`` (2^30), K4a, K4b and K6 run
+a three-pass split (``long_plan``: K4a 3 launches, K4b and K6 5), and the
+spectra routes' kernels (K9, K1, K2, K3, K5) the radix-2 passes (K9: the
+cross spectra, log2(nfft) passes and the split into the pairs, 2 +
+log2(nfft) launches).  K1, K2 and K5's GCC
 take one route a shape (``gcc_route``): 1 launch in one block a scene,
 3 with ``gcc_rows``, 4 through the mic rows' spectra on the split, 2
 through them in one block.
@@ -52,7 +54,9 @@ them, whose strips narrow to 8 at 2,048, to 4 at 4,096 and to 2 at
 the n2-point table from device memory at 8,192 (``split_hi_points``);
 ``split_plan`` gives each launch of K4a's, K4b's and K6's,
 ``spectra_plan`` each of the spectra routes', with the row strips'
-bank-spread stride), so a transform reads
+bank-spread stride; above 2^26 K4a, K4b and K6 split the n1-point
+columns again into two passes of 16-column strips, ``long_plan``), so a
+transform reads
 and writes each point once per launch (16 bytes a complex point) and is
 bound by device memory at that.  Up to 4,096 points the bootstraps, K9,
 the render (a packed base row a block) and the all-pairs and windowed
@@ -62,7 +66,7 @@ K3 is one launch there, K2 one or two and K5 two or three.  The others
 run radix-2 Stockham passes over rows in device memory, one launch and
 16 bytes a point per pass, about 16·log2(nfft) bytes per point and
 transform, and fuse their first or last pass into a prologue or
-epilogue: every transforming kernel above 2^26 only.
+epilogue: the spectra routes' kernels above 2^26 only.
 The design keeps the rest of the work out of device memory where the TPU
 kernels did: real rows are packed two to a complex transform, the whitening /
 ramp synthesis runs in one pass over the spectra, two real results share
@@ -121,10 +125,15 @@ PHAT_EPS = 1e-10
 # reach 1024 x 1024 (STAGE_SPLIT_MAX): the GCCs' ``gcc_rows`` route and
 # the render's ``render_rows``, whose two strips fit to 2^19; elsewhere the
 # GCCs go through their mic rows' spectra (``gcc_route``) and the render
-# through its base rows' (``render_route``).
+# through its base rows' (``render_route``).  Above FFT_SPLIT_MAX K4a, K4b
+# and K6 keep its row side and split its columns again (``long_plan``) up
+# to FFT_LONG_MAX (2^30): the largest nfft whose row and scratch fit the
+# card (8 GiB a packed row at 2^30) and whose int n every entry point
+# takes; every wrapper raises above it (``_check_pow2``).
 FFT_REAL_ONE_BLOCK = 4096
 SPLIT_COLS_LONG_MAX = 1 << 22
 FFT_SPLIT_MAX = 1 << 26
+FFT_LONG_MAX = 1 << 30
 SPLIT_HI_SHARED_MAX = 4096
 STAGE_SPLIT_MAX = 1 << 20
 # Rows a split row pass holds (kStrip, csrc/fft.cuh), the strips the
@@ -159,7 +168,8 @@ _MAX_GRID_Y = 65535
 ROW_CHUNK = 2 * _MAX_GRID_Y
 # The scratch one launch of K4a, K4b or K6 may take (``_launch_rows``):
 # 1,000 rows at 2^22 on the split (16.8 GB) keep one launch; 512 rows a
-# launch at 2^23, 256 at 2^24, 128 at 2^25 and 64 at 2^26.  The same cap
+# launch at 2^23, 256 at 2^24, 128 at 2^25, 64 at 2^26, 32 at 2^27, 16 at
+# 2^28 and 4 at 2^30.  The same cap
 # holds a launch of K1, K2, K3 or K5 (``scene_chunk``): 12 scenes of 4
 # mics at 2^25, 6 at 2^26.
 SPLIT_SCRATCH_BYTES = 16 << 30
@@ -225,16 +235,16 @@ def _library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_library_path()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         signatures = {
-            "palt_fft_real": [p, i, i, i, i, i, i, p, p, p, p],
-            "palt_noise_bootstrap_peaks": [p, p, i, i, i, i, i, i, f, p, p,
-                                           p, p],
+            "palt_fft_real": [p, i, i, i, i, i, i, i, p, p, p, p],
+            "palt_noise_bootstrap_peaks": [p, p, i, i, i, i, i, i, i, f, p,
+                                           p, p, p],
             "palt_whiten": [p, ctypes.c_longlong, f, p, p],
             "palt_whitened_corr": [p, p, i, i, i, i, i, p, f, p, p, p, p,
                                    p],
             "palt_gcc_all_pairs": [p, i, i, i, i, i, i, i, i, i, p, p, i, p,
                                    f, p, p, p, p, p, p, p],
-            "palt_bootstrap_peaks": [p, p, i, i, i, i, i, i, f, p, p, p,
-                                     p],
+            "palt_bootstrap_peaks": [p, p, i, i, i, i, i, i, i, f, p, p,
+                                     p, p],
             "palt_gcc_windowed": [p, i, i, i, i, i, i, i, i, i, p, p, i, p,
                                   f, i, p, p, p, p, p, p, p, p, p, p, p],
             "palt_delay_sum": [p, i, i, p, p, i, i, i, i, i, p, i, p, p, p,
@@ -260,10 +270,31 @@ def _library() -> ctypes.CDLL:
 def _twiddle_lengths(nfft: int):
     """The lengths L whose half tables ``_twiddles`` holds at nfft, in
     order: nfft, then on the split above 2^20 (``STAGE_SPLIT_MAX`` < nfft
-    <= ``FFT_SPLIT_MAX``) its n1 and n2 (``fft_real_split``)."""
-    if STAGE_SPLIT_MAX < nfft <= FFT_SPLIT_MAX:
-        return [nfft] + list(fft_real_split(nfft))
-    return [nfft]
+    <= ``FFT_LONG_MAX``) its n1 and n2 (``fft_real_split``), and above
+    ``FFT_SPLIT_MAX`` the three-pass split's n1a and n1b (``long_plan``)."""
+    if nfft <= STAGE_SPLIT_MAX:
+        return [nfft]
+    lengths = [nfft] + list(fft_real_split(nfft))
+    if nfft > FFT_SPLIT_MAX:
+        lengths += list(long_plan(nfft)[:2])
+    return lengths
+
+
+# Entries of a half table ``_twiddles`` makes at a time in float64, on up
+# to ``_TABLE_THREADS`` host threads (numpy's cos and sin release the GIL;
+# a 2^30-point table's n-point part holds 2^29 entries).
+_TABLE_CHUNK = 1 << 22
+_TABLE_THREADS = 8
+
+
+def _half_table_part(n: int, m0: int, m1: int) -> np.ndarray:
+    """Entries m0 .. m1 - 1 of the n-point half table exp(-2 pi i m / n),
+    made in float64 and rounded once to float32, the exact zero of cos at
+    m = n/4 kept exact: (m1 - m0, 2)."""
+    ang = -2.0 * np.pi * np.arange(m0, m1) / n
+    tw = np.stack([np.cos(ang), np.sin(ang)], -1)
+    tw[np.abs(tw) < 1e-12] = 0.0
+    return tw.astype(np.float32)
 
 
 @functools.lru_cache(maxsize=8)
@@ -276,20 +307,28 @@ def _twiddles(nfft: int, device: str) -> torch.Tensor:
     angles differ by powers of two), read contiguously by the split
     kernels (``stage_split_twiddles`` and ``stage_split_tables_of`` in
     ``csrc/kernels.cu``; the n2-point one through the read-only path
-    where n2 passes ``SPLIT_HI_SHARED_MAX``, ``HiTable``)."""
-    parts = []
-    for n in _twiddle_lengths(nfft):
-        ang = -2.0 * np.pi * np.arange(n // 2) / n
-        tw = np.stack([np.cos(ang), np.sin(ang)], -1)
-        tw[np.abs(tw) < 1e-12] = 0.0
-        parts.append(tw)
-    return torch.from_numpy(np.concatenate(parts).astype(np.float32)).to(
-        device)
+    where n2 passes ``SPLIT_HI_SHARED_MAX``, ``HiTable``; above 2^26
+    ``long_tables``).  Each entry is made as it would be made alone, in
+    parts of ``_TABLE_CHUNK`` entries on host threads."""
+    from concurrent.futures import ThreadPoolExecutor
+    parts = [(n, m0, min(m0 + _TABLE_CHUNK, n // 2))
+             for n in _twiddle_lengths(nfft)
+             for m0 in range(0, n // 2, _TABLE_CHUNK)]
+    starts = np.cumsum([0] + [m1 - m0 for _, m0, m1 in parts])
+    table = np.empty((starts[-1], 2), np.float32)
+
+    def make(i):
+        table[starts[i]:starts[i + 1]] = _half_table_part(*parts[i])
+
+    with ThreadPoolExecutor(min(_TABLE_THREADS, len(parts))) as pool:
+        list(pool.map(make, range(len(parts))))
+    return torch.from_numpy(table).to(device)
 
 
 def _check_pow2(nfft: int) -> None:
-    if nfft < 4 or nfft & (nfft - 1):
-        raise ValueError(f"nfft must be a power of two >= 4, got {nfft}")
+    if nfft < 4 or nfft & (nfft - 1) or nfft > FFT_LONG_MAX:
+        raise ValueError(f"nfft must be a power of two from 4 to 2^30 "
+                         f"(FFT_LONG_MAX), got {nfft}")
 
 
 def _check_contiguous(name: str, *tensors: torch.Tensor) -> None:
@@ -360,44 +399,55 @@ def _row_chunks(rows: int, chunk: int = ROW_CHUNK):
 
 def _launch_rows(n1: int, nfft: int) -> int:
     """Rows a launch of K4a, K4b or K6 takes on schedule n1 at nfft:
-    ``ROW_CHUNK``, and where the schedule has scratch (one buffer of packed
-    rows on the split, two on the passes: ``_pass_scratch``) at most as
-    many as keep it within ``SPLIT_SCRATCH_BYTES``, an even count.  Each
-    packed row pair is transformed on its own and each K6 draw keyed by
-    its own seed words, so the chunks give one launch's bits."""
-    copies = _copies(n1)
-    if not copies:
+    ``ROW_CHUNK``, and on the split, whose scratch is one buffer of packed
+    rows (``_pass_scratch``), at most as many as keep it within
+    ``SPLIT_SCRATCH_BYTES``, an even count.  Each packed row pair is
+    transformed on its own and each K6 draw keyed by its own seed words,
+    so the chunks give one launch's bits."""
+    if n1 == 1:
         return ROW_CHUNK
-    packed = SPLIT_SCRATCH_BYTES // (copies * nfft * 8)
+    packed = SPLIT_SCRATCH_BYTES // (nfft * 8)
     return max(2, min(ROW_CHUNK, 2 * packed))
 
 
 def _split_n1(nfft: int) -> int:
     """n1 of K4a's, K4b's and K6's schedule at nfft: 1, one block, up to
-    ``FFT_REAL_ONE_BLOCK``; the four-step split of ``fft_real_split`` up to
-    ``FFT_SPLIT_MAX`` (2^26); 0, the radix-2 passes, above."""
+    ``FFT_REAL_ONE_BLOCK``; the four-step split of ``fft_real_split``
+    above, its n1-point columns split again into two passes above
+    ``FFT_SPLIT_MAX`` (2^26, ``long_plan``)."""
+    return fft_real_split(nfft)[0]
+
+
+def _long_n1a(nfft: int) -> int:
+    """n1a of K4a's, K4b's and K6's three-pass split (``long_plan``) above
+    ``FFT_SPLIT_MAX``, as their entry points take it; 0 below."""
+    return long_plan(nfft).n1a if nfft > FFT_SPLIT_MAX else 0
+
+
+def corr_schedule(nfft: int) -> int:
+    """n1 of K9's schedule at nfft: K4a's up to ``FFT_SPLIT_MAX`` (one
+    block a packed row, ``corr_block``, or the split: the spectra routes'
+    last two launches, ``spectra_plan``); 0, the radix-2 passes, above."""
     return fft_real_split(nfft)[0] if nfft <= FFT_SPLIT_MAX else 0
 
 
-# K9's schedule is K4a's: one block a packed row (``corr_block``), the
-# split (the spectra routes' last two launches, ``spectra_plan``) or the
-# radix-2 passes.
-corr_schedule = _split_n1
-
-
 def _split_strips(n1: int, nfft: int):
-    """The strips K4a's, K4b's and K6's schedule n1 passes to its entry
-    point: ``split_strips`` on the split, (0, 0) (unused) elsewhere."""
-    return split_strips(n1, nfft // n1) if n1 > 1 else (0, 0)
+    """The strips (columns, rows) K4a's, K4b's and K6's schedule n1 passes
+    to its entry point: ``split_strips`` on the split up to
+    ``FFT_SPLIT_MAX``, above it the column passes' and ``boot_rows_long``'s
+    (``long_plan``), (0, 0) (unused) in one block."""
+    if n1 == 1:
+        return 0, 0
+    if nfft > FFT_SPLIT_MAX:
+        plan = long_plan(nfft)
+        return plan.cols_a.strip, plan.boot_rows.strip
+    return split_strips(n1, nfft // n1)
 
 
 def _pass_scratch(n1: int, packed: int, nfft: int, device):
     """The scratch of K4a's, K4b's and K6's schedule n1 for ``packed``
-    packed rows: none in one block, one buffer on the split, two halves
-    of one buffer (ping-pong) on the passes."""
-    if n1 == 1:
-        return None
-    return _scratch(packed * (2 if n1 == 0 else 1), nfft, device)
+    packed rows: none in one block, one buffer on the split."""
+    return None if n1 == 1 else _scratch(packed, nfft, device)
 
 
 def band_mask(nfft: int, band, fs: Optional[float], dtype=torch.float32,
@@ -435,9 +485,18 @@ def fft_real_split(nfft: int):
     strips of 4), 4096 x 4096 at 2^24 (strips of 4), 4096 x 8192 at 2^25
     (4 columns, 2 rows) and 8192 x 8192 at ``FFT_SPLIT_MAX`` (2^26,
     strips of 2).  ``SPLIT_COLS_LONG_MAX`` picks only that orientation:
-    every transforming kernel runs the split up to ``FFT_SPLIT_MAX``."""
+    every transforming kernel runs the split up to ``FFT_SPLIT_MAX``.
+    Above, to ``FFT_LONG_MAX`` (2^30), K4a's, K4b's and K6's three-pass
+    split keeps that row side, n2 = 8,192 (a row pass's strip of row k1 and
+    its partner holds ``BLOCK_POINTS``), and n1 = nfft / 8,192, 16,384 at
+    2^27 to 131,072 at 2^30, whose columns ``long_plan`` splits again."""
     if nfft <= FFT_REAL_ONE_BLOCK:
         return 1, nfft
+    if nfft > FFT_SPLIT_MAX:
+        if nfft > FFT_LONG_MAX:
+            raise ValueError(f"fft_real_split: nfft {nfft} passes "
+                             f"FFT_LONG_MAX (2^30)")
+        return nfft // (BLOCK_POINTS // 2), BLOCK_POINTS // 2
     short = 1 << ((nfft.bit_length() - 1) // 2)
     if nfft > SPLIT_COLS_LONG_MAX:
         return short, nfft // short
@@ -499,15 +558,20 @@ def split_strips(n1: int, n2: int):
     shared memory (4, 2) at 4096 x 8192 (2^25: 180,224 and 196,624) and
     (2, 2) at 8192 x 8192 (2^26: 229,376 and 229,392): with it neither
     fits (245,760 and 262,160 bytes at 2^25)."""
-    def widest(length, smem):
-        for strip in SPLIT_STRIPS:
-            if length * strip <= BLOCK_POINTS and smem(strip) <= SMEM_OPTIN:
-                return strip
-        raise ValueError(f"no strip of {SPLIT_STRIPS} fits the split "
-                         f"{n1} x {n2}")
     hi = split_hi_points(n2)
-    return (widest(n1, lambda s: 8 * (n1 // 2 + n1 + hi + n1 * s)),
-            widest(n2, lambda s: _row_pass_smem(n1, n2, 1, s, hi)))
+    where = f"the split {n1} x {n2}"
+    return (_widest(n1, lambda s: 8 * (n1 // 2 + n1 + hi + n1 * s), where),
+            _widest(n2, lambda s: _row_pass_smem(n1, n2, 1, s, hi), where))
+
+
+def _widest(length: int, smem, where: str) -> int:
+    """The widest of ``SPLIT_STRIPS`` whose strip of sequences of
+    ``length`` points holds at most ``BLOCK_POINTS`` points and whose pass
+    takes at most ``SMEM_OPTIN`` bytes (``smem(strip)``)."""
+    for strip in SPLIT_STRIPS:
+        if length * strip <= BLOCK_POINTS and smem(strip) <= SMEM_OPTIN:
+            return strip
+    raise ValueError(f"no strip of {SPLIT_STRIPS} fits {where}")
 
 
 class SplitPass(NamedTuple):
@@ -596,12 +660,67 @@ def spectra_plan(nfft: int, packed: int = 1) -> SpectraPlan:
     ``fft_threads`` = 1,024 threads a block there (512 of twice the
     points, as ``boot_rows``, measured 3-12 % slower on an H100;
     PERF.md).  Above 2^26 ``split_plan`` raises: the spectra routes run
-    the radix-2 passes there, as every transforming kernel."""
+    the radix-2 passes there (K4a, K4b and K6 ``long_plan``'s split)."""
     plan = split_plan(nfft, packed)
     n1, n2 = fft_real_split(nfft)
     cs = plan.cols.strip
     return SpectraPlan(plan.cols, plan.rows, plan.boot_rows,
                        SplitPass(cs, 8 * (n1 // 2 + n1 * cs)))
+
+
+class LongPlan(NamedTuple):
+    """The launches of K4a's, K4b's and K6's three-pass split above
+    ``FFT_SPLIT_MAX`` (``long_plan``): the factors n1 = n1a * n1b of its
+    columns; pass A (``long_cols_a``, and mirrored with the maxima
+    ``long_cols_max``, which holds 128 bytes more); pass B
+    (``long_cols_b``, forward and back); K4a's row pass (``fft_real_rows``)
+    and K4b's and K6's (``boot_rows_long``)."""
+    n1a: int
+    n1b: int
+    cols_a: SplitPass
+    cols_b: SplitPass
+    rows: SplitPass
+    boot_rows: SplitPass
+
+
+def long_plan(nfft: int, packed: int = 1) -> LongPlan:
+    """Each launch of K4a's, K4b's and K6's three-pass split at nfft
+    (``FFT_SPLIT_MAX`` < nfft <= ``FFT_LONG_MAX``: 2^27 to 2^30) for
+    ``packed`` packed rows a launch.  The split's n1 x n2
+    (``fft_real_split``: n2 = 8,192) with n1 = n1a * n1b, n1a =
+    2^ceil(log2(n1) / 2): 128 x 128 at 2^27, 256 x 128 at 2^28, 256 x 256
+    at 2^29, 512 x 256 at 2^30.  The column passes' strip is the widest of
+    ``SPLIT_STRIPS`` that both passes hold within ``BLOCK_POINTS`` points
+    and ``SMEM_OPTIN`` bytes (their n1a/2 or n1b/2 sub-twiddles and the
+    strip; ``long_cols_max`` 128 bytes more): 16 columns, 128 bytes of
+    each row read or written, at every length (one column would be a
+    quarter of a 32-byte sector at 2^30 on the two-pass split).  The row
+    passes as at 2^26: ``fft_real_rows_strip``'s 2 rows (row k1 and its
+    partner) at the stride ``row_ld``, 163,968 bytes, and
+    ``boot_rows_long``'s 2 rows in 512 threads, the same bytes (no n1- or
+    n2-point table: pass B' takes the inverse twiddle)."""
+    if not FFT_SPLIT_MAX < nfft <= FFT_LONG_MAX:
+        raise ValueError(f"long_plan: nfft {nfft} is not on the three-pass "
+                         f"split")
+    n1, n2 = fft_real_split(nfft)
+    n1a = 1 << (n1.bit_length() // 2)
+    n1b = n1 // n1a
+
+    def cols_smem(length, strip):
+        return 8 * (length // 2 + length * strip)
+
+    where = f"the three-pass split {n1a} x {n1b} x {n2}"
+    cs = min(_widest(n1a, lambda s: cols_smem(n1a, s) + 128, where),
+             _widest(n1b, lambda s: cols_smem(n1b, s), where))
+    s2 = fft_real_rows_strip(n2, packed)
+
+    def rows_smem(strip):
+        return 8 * (n2 // 2 + strip * row_ld(strip, n2))
+
+    rs = _widest(n2, rows_smem, where)
+    return LongPlan(n1a, n1b, SplitPass(cs, cols_smem(n1a, cs)),
+                    SplitPass(cs, cols_smem(n1b, cs)),
+                    SplitPass(s2, rows_smem(s2)), SplitPass(rs, rows_smem(rs)))
 
 
 def _gcc_block_smem(nfft: int, mics: int) -> int:
@@ -649,7 +768,7 @@ def gcc_route(nfft: int, mics: int) -> GccRoute:
       = 2,048 and 8 rows at n2 = 2,048, 4 rows at n2 = 4,096 (2^23), 4
       columns at n1 = 4,096 (2^24, 2^25), 2 rows at n2 = 8,192 (2^25,
       2^26) and 2 columns at n1 = 8,192 (2^26);
-    - the radix-2 passes above, as every transforming kernel."""
+    - the radix-2 passes above, as the spectra routes' kernels."""
     if nfft <= FFT_REAL_ONE_BLOCK:
         if _gcc_block_smem(nfft, mics) <= SMEM_OPTIN:
             return GccRoute(ROUTE_BLOCK, 1, 0, 0)
@@ -689,7 +808,7 @@ def render_route(nfft: int) -> GccRoute:
       from n1 = 2,048 and 8 rows at n2 = 2,048, 4 rows at n2 = 4,096, 4
       columns at n1 = 4,096, 2 rows at n2 = 8,192 and 2 columns at n1 =
       8,192);
-    - the radix-2 passes above (n1 = 0), as every transforming kernel.
+    - the radix-2 passes above (n1 = 0), as the spectra routes' kernels.
 
     The mic count does not enter: the render's row passes hold one or two
     strips at any mic count."""
@@ -807,13 +926,12 @@ def fft_real(x: torch.Tensor, nfft: int) -> torch.Tensor:
     columns' DFTs with the twiddle (strips of 16 columns, 8 at n1 = 2,048,
     4 at 4,096, 2 at 8,192: ``split_strips``), then the rows' DFTs with
     the two real spectra split in the epilogue (``fft_real_rows_strip``;
-    the launches as ``split_plan`` gives them); above, the
-    packed rows, the log2(nfft) radix-2 passes through device memory (one
-    launch a pass) and the split into the two spectra.  Bound by device
-    memory: the rows' read, one write and one read of the packed
-    intermediate (a pass) and the spectra's write.  A batch beyond
-    ``_launch_rows`` rows (``ROW_CHUNK``, or the scratch's byte cap)
-    launches in chunks."""
+    the launches as ``split_plan`` gives them); above, to 2^30, three:
+    the columns' DFTs in two passes of 16-column strips (n1 = n1a * n1b,
+    ``long_plan``), then the rows' as at 2^26.  Bound by device memory:
+    the rows' read, one write and one read of the packed intermediate (a
+    pass) and the spectra's write.  A batch beyond ``_launch_rows`` rows
+    (``ROW_CHUNK``, or the scratch's byte cap) launches in chunks."""
     if _use_plain(x):
         return fft_real_plain(x, nfft)
     _check_contiguous("fft_real", x)
@@ -828,17 +946,30 @@ def fft_real(x: torch.Tensor, nfft: int) -> torch.Tensor:
     out = torch.empty((rows, nfft // 2 + 1), dtype=torch.complex64,
                       device=dev)
     n1 = _split_n1(nfft)
+    n1a = _long_n1a(nfft)
     chunks = _row_chunks(rows, _launch_rows(n1, nfft))
     packed = (chunks[0][1] + 1) // 2 if chunks else 0
     buf = _pass_scratch(n1, packed, nfft, dev)
     tw = _twiddles(nfft, str(dev))
     for r0, r1 in chunks:
-        plan = split_plan(nfft, (r1 - r0 + 1) // 2) if n1 > 1 else None
-        cols, s2 = (plan.cols.strip, plan.rows.strip) if plan else (0, 0)
+        cols, s2 = _fft_real_strips(nfft, (r1 - r0 + 1) // 2)
         _launch("fft_real", dev, lib.palt_fft_real, x[r0].data_ptr(),
-                r1 - r0, length, nfft, n1, cols, s2, tw.data_ptr(),
+                r1 - r0, length, nfft, n1, cols, s2, n1a, tw.data_ptr(),
                 _ptr(buf), out[r0].data_ptr())
     return out
+
+
+def _fft_real_strips(nfft: int, packed: int):
+    """(column strip, pass-2 strip) of K4a's launch over ``packed`` packed
+    rows: ``split_plan``'s up to 2^26, ``long_plan``'s above (its column
+    passes' strip), (0, 0) in one block."""
+    if nfft <= FFT_REAL_ONE_BLOCK:
+        return 0, 0
+    if nfft > FFT_SPLIT_MAX:
+        plan = long_plan(nfft, packed)
+        return plan.cols_a.strip, plan.rows.strip
+    plan = split_plan(nfft, packed)
+    return plan.cols.strip, plan.rows.strip
 
 
 # ---------------------------------------------------------------------------
@@ -1212,15 +1343,19 @@ def bootstrap_peaks(s1: torch.Tensor, rows: torch.Tensor, nfft: int,
       column DFTs end in the maxima (the column passes' strips 16
       columns, 8 at n1 = 2,048, 4 at 4,096, 2 at 8,192:
       ``split_strips``; the row pass in 512 threads from 2^21);
-    - above: the radix-2 passes through device memory (one launch a
-      pass), ping-ponging in a scratch buffer of twice the packed rows.
+    - above, to 2^30: five launches over the scratch buffer, the
+      three-pass split (``long_plan``): the column DFTs in two passes of
+      16-column strips (n1 = n1a * n1b), a row pass as at 2^26 that
+      leaves the inverse twiddle to the next pass, and the two column
+      passes mirrored, the last ending in the maxima.
 
     Bound by device memory: the rows' read and, on the split, two reads
     and two writes of the packed buffer (32 bytes a point of the packed
-    rows).  A batch beyond ``_launch_rows`` rows (``ROW_CHUNK``, or as
-    many as keep the scratch within ``SPLIT_SCRATCH_BYTES``: 512 rows at
-    2^23, 256 at 2^24, 128 at 2^25, 64 at 2^26) launches in chunks, with
-    one launch's peaks."""
+    rows; 48 above 2^26).  A batch beyond ``_launch_rows`` rows
+    (``ROW_CHUNK``, or as many as keep the scratch within
+    ``SPLIT_SCRATCH_BYTES``: 512 rows at 2^23, 256 at 2^24, 128 at 2^25,
+    64 at 2^26, 32 at 2^27, 16 at 2^28, 4 at 2^30) launches in chunks,
+    with one launch's peaks."""
     if _use_plain(s1, rows):
         return bootstrap_peaks_plain(s1, rows, nfft, eps)
     _check_contiguous("bootstrap_peaks", s1, rows)
@@ -1237,13 +1372,14 @@ def bootstrap_peaks(s1: torch.Tensor, rows: torch.Tensor, nfft: int,
     out = torch.empty(num, dtype=torch.float32, device=dev)
     n1 = _split_n1(nfft)
     cols, strip = _split_strips(n1, nfft)
+    n1a = _long_n1a(nfft)
     chunks = _row_chunks(num, _launch_rows(n1, nfft))
     buf = _pass_scratch(n1, (chunks[0][1] + 1) // 2, nfft, dev)
     tw = _twiddles(nfft, str(dev))
     for r0, r1 in chunks:
         _launch("bootstrap_peaks", dev, lib.palt_bootstrap_peaks,
                 s1.data_ptr(), rows[r0].data_ptr(), r1 - r0, length, nfft,
-                n1, cols, strip, eps, tw.data_ptr(), _ptr(buf),
+                n1, cols, strip, n1a, eps, tw.data_ptr(), _ptr(buf),
                 out[r0:].data_ptr())
     return out
 
@@ -1271,12 +1407,12 @@ def noise_bootstrap_peaks(s1: torch.Tensor, seeds: torch.Tensor,
     Replaces ``bfly_noise_bootstrap_peaks`` (pyaudiolocalization_tpu/ops/
     pallas_fft.py:1326): K4b's schedules (``bootstrap_peaks``: one launch
     up to 4096, three on the four-step split up to 2^26 with K4b's strips,
-    the radix-2 passes above) with its row load replaced by the draw, made
-    where the first forward step reads the point (two draws per complex
-    transform), so the rows never exist in device memory and no
-    permutation is sorted.  The draws and everything after them are K4b's, so the peaks
-    equal ``bootstrap_peaks`` of ``noise_ops.uniform(seeds, n_samp)``
-    bit for bit on the split and in one block.  Bound by device memory
+    five on the three-pass split above) with its row load replaced by the
+    draw, made where the first forward step reads the point (two draws per
+    complex transform), so the rows never exist in device memory and no
+    permutation is sorted.  The draws and everything after them are K4b's,
+    so the peaks equal ``bootstrap_peaks`` of ``noise_ops.uniform(seeds,
+    n_samp)`` bit for bit on every schedule.  Bound by device memory
     (one write and two reads of the packed buffer on the split) and the
     Philox rounds.  A batch beyond ``_launch_rows`` draws launches in
     chunks (K4b's), each draw keyed by its own seed words."""
@@ -1296,6 +1432,7 @@ def noise_bootstrap_peaks(s1: torch.Tensor, seeds: torch.Tensor,
     out = torch.empty(num, dtype=torch.float32, device=dev)
     n1 = _split_n1(nfft)
     cols, strip = _split_strips(n1, nfft)
+    n1a = _long_n1a(nfft)
     chunks = _row_chunks(num, _launch_rows(n1, nfft))
     buf = _pass_scratch(n1, (chunks[0][1] + 1) // 2, nfft, dev)
     tw = _twiddles(nfft, str(dev))
@@ -1303,7 +1440,7 @@ def noise_bootstrap_peaks(s1: torch.Tensor, seeds: torch.Tensor,
         _launch("noise_bootstrap_peaks", dev,
                 lib.palt_noise_bootstrap_peaks, s1.data_ptr(),
                 seeds[r0].data_ptr(), r1 - r0, n_samp, nfft, n1, cols, strip,
-                eps, tw.data_ptr(), _ptr(buf), out[r0:].data_ptr())
+                n1a, eps, tw.data_ptr(), _ptr(buf), out[r0:].data_ptr())
     return out
 
 

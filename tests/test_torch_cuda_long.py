@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch twins on the card above
-2^20 points: the split of every transforming kernel to 2^26, the radix-2
-passes above (at 2^27), K9's, K1's, K2's, K3's and K5's shapes from 2^21
-to 2^26 through the spectra, and the device kernels a call runs there.
+2^20 points: the split of every transforming kernel to 2^26, above it
+(at 2^27) K4a's, K4b's and K6's three-pass split and K9's radix-2
+passes, K9's, K1's, K2's, K3's and K5's shapes from 2^21 to 2^26 through
+the spectra, and the device kernels a call runs there.
 
 A file of its own, run in its own process: in one process after these
 cases, late profiler traces in ``test_torch_cuda_kernels.py`` lost each
@@ -38,9 +39,10 @@ from test_torch_cuda_kernels import \
     test_whitened_corr_kernel_matches_plain as _whitened_corr
 
 # K4a's, K4b's and K6's n1 above 2^20: the split to 2^26 (the long side in
-# the rows above 2^22), the radix-2 passes above.
+# the rows above 2^22), the three-pass split above (n1 = 128 x 128 at
+# 2^27).
 LONG_N1 = {1 << 21: 2048, 1 << 22: 2048, 1 << 23: 2048, 1 << 24: 4096,
-           1 << 25: 4096, 1 << 26: 8192, 1 << 27: 0}
+           1 << 25: 4096, 1 << 26: 8192, 1 << 27: 16384}
 
 
 @pytest.mark.cuda
@@ -48,7 +50,7 @@ LONG_N1 = {1 << 21: 2048, 1 << 22: 2048, 1 << 23: 2048, 1 << 24: 4096,
     (2, 1_046_019, 1 << 21), (3, 1_046_019, 1 << 21), (1, 2_000_000, 1 << 22),
     (3, 4_000_000, 1 << 23), (1, 8_400_000, 1 << 24), (2, 600_000, 1 << 25),
     (1, 16_800_000, 1 << 25), (1, 33_000_000, 1 << 26),
-    (2, 600_000, 1 << 27)])
+    (2, 600_000, 1 << 27), (1, 67_000_000, 1 << 27)])
 def test_fft_real_runs_the_passes_above_2_20(cuda, rows, length, nfft):
     """Above 2^20 K4a runs the four-step split with strips of 8 columns
     (``split_strips``) at 2^21 (a 23.7 s recording at 44.1 kHz, the
@@ -56,10 +58,9 @@ def test_fft_real_runs_the_passes_above_2_20(cuda, rows, length, nfft):
     strips 8 rows), with the long side in the rows at 2^23 (2,048 x 4,096,
     pass 2's strips 4 rows), 2^24 (4,096 x 4,096, 4 columns, 4 rows), 2^25
     (4,096 x 8,192: 4 columns, 2 rows; a 380 s recording) and 2^26 (8,192 x
-    8,192: 2 and 2; 750 s), and above its largest split (2^26) packs the
-    rows, runs the radix-2 passes (one launch a pass) and splits the two
-    spectra (2^27): each against its twin, relative to the spectrum's
-    peak."""
+    8,192: 2 and 2; 750 s), and above it the three-pass split (2^27: 128 x
+    128 x 8,192; a 1,520 s recording): each against its twin, relative to
+    the spectrum's peak."""
     assert cf._split_n1(nfft) == LONG_N1[nfft]
     x = torch.randn((rows, length), generator=_gen(cuda), device=cuda)
     before = cf.LAUNCHES["fft_real"]
@@ -110,7 +111,7 @@ def test_bootstrap_peaks_kernel_matches_plain(cuda, rows, length, nfft):
     """K4b above 2^20: at 2^21 strips of 8 columns, at 2^22 8 columns and
     8 rows, at 2^23 8 columns and 4 rows of 4,096, at 2^24 4 and 4, at 2^25
     4 columns and 2 rows of 8,192 and at 2^26 2 and 2 (the n2-point table
-    in device memory), and the radix-2 passes above 2^26."""
+    in device memory), and the three-pass split above 2^26."""
     _bootstrap_peaks(cuda, rows, length, nfft)
 
 
@@ -120,8 +121,8 @@ def test_bootstrap_peaks_kernel_matches_plain(cuda, rows, length, nfft):
     (3, 100000, 1 << 24), (3, 100000, 1 << 25), (3, 16_800_000, 1 << 25),
     (3, 100000, 1 << 26), (3, 100000, 1 << 27)])
 def test_noise_bootstrap_peaks_kernel_matches_plain(cuda, rows, n_samp, nfft):
-    """K6 above 2^20 against its twin (the split to 2^26, the passes
-    above)."""
+    """K6 above 2^20 against its twin (the split to 2^26, the three-pass
+    split above)."""
     _noise_peaks(cuda, rows, n_samp, nfft)
 
 
@@ -129,11 +130,12 @@ def test_noise_bootstrap_peaks_kernel_matches_plain(cuda, rows, n_samp, nfft):
 @pytest.mark.parametrize("rows,n_samp,nfft", [(3, 100000, 1 << 23),
                                               (3, 100000, 1 << 24),
                                               (3, 100000, 1 << 25),
-                                              (3, 100000, 1 << 26)])
+                                              (3, 100000, 1 << 26),
+                                              (3, 100000, 1 << 27)])
 def test_noise_bootstrap_equals_bootstrap_on_its_draws(cuda, rows, n_samp,
                                                        nfft):
     """K6's peaks are K4b's element for element on the same draws, on the
-    split past 2^22."""
+    split past 2^22 and on the three-pass split at 2^27."""
     _noise_equals(cuda, rows, n_samp, nfft)
 
 
@@ -351,3 +353,45 @@ def test_device_kernels_per_call_above_2_20(cuda, tmp_path):
         for name in k3 + k5:
             assert not any(p in name for p in passes), name
         del base
+
+
+@pytest.mark.cuda
+def test_device_kernels_per_call_above_2_26(cuda, tmp_path):
+    """The three-pass split at 2^27 (a 1,520 s recording): K4a runs three
+    kernels (passes A and B, ``long_cols_a`` and ``long_cols_b``, then
+    ``fft_real_rows``), K4b and K6 five (A, B, ``boot_rows_long``, B' and
+    A' with the maxima, ``long_cols_max``; K6's first with its
+    ``NoiseLoad``), none of the radix-2 passes; each against its twin and
+    K6 equal to K4b on the same draws."""
+    nfft, length = 1 << 27, 67_000_000
+    g = _gen(cuda, 27)
+    x = torch.randn((3, length), generator=g, device=cuda)
+    names = _device_kernels(lambda: cf.fft_real(x[:1], nfft),
+                            tmp_path / "k4a_27.json")
+    assert len(names) == 3, names
+    assert all(w in n for w, n in zip(
+        ("long_cols_a", "long_cols_b", "fft_real_rows"), names)), names
+    got = cf.fft_real(x[:1], nfft)
+    want = cf.fft_real_plain(x[:1], nfft)
+    assert float((got - want).abs().max()) < 5e-6 * float(want.abs().max())
+    s1 = want[0].contiguous()
+    boot = ("long_cols_a", "long_cols_b", "boot_rows_long", "long_cols_b",
+            "long_cols_max")
+    names = _device_kernels(lambda: cf.bootstrap_peaks(s1, x, nfft),
+                            tmp_path / "k4b_27.json")
+    assert len(names) == 5 and all(w in n for w, n in zip(boot, names)), \
+        names
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (3, 2), generator=g,
+                          dtype=torch.int32, device=cuda)
+    names = _device_kernels(
+        lambda: cf.noise_bootstrap_peaks(s1, seeds, length, nfft),
+        tmp_path / "k6_27.json")
+    assert len(names) == 5 and all(w in n for w, n in zip(boot, names)), \
+        names
+    assert "NoiseLoad" in names[0], names
+    passes = ("stockham_pass", "pack_rows")
+    assert not any(p in n for p in passes for n in names)
+    del x
+    draws = noise_ops.uniform(seeds, length)
+    assert torch.equal(cf.noise_bootstrap_peaks(s1, seeds, length, nfft),
+                       cf.bootstrap_peaks(s1, draws, nfft))

@@ -215,25 +215,33 @@ def fft_real_model(x, n):
     rows = x.shape[0]
     z = _pack(x, n)
     packed = z.shape[0]
-    bins = n // 2 + 1
-    out = np.zeros((2 * packed, bins), complex)
-    writes = np.zeros((2 * packed, bins), int)
     n1, n2 = cf.fft_real_split(n)
     if n1 == 1:                                       # fft_real_block
+        bins = n // 2 + 1
+        out = np.zeros((2 * packed, bins), complex)
         zf = block_fft(z[:, :, None])[..., 0]
         k = np.arange(bins)
         zk, zm = zf[:, k], zf[:, (n - k) & (n - 1)]
         out[0::2], out[1::2] = _split_bin(zk, zm, 0), _split_bin(zk, zm, 1)
-        writes += 1
-        return out[:rows], writes[:rows]
+        return out[:rows], np.ones((rows, bins), int)
     assert n1 * n2 == n and n1 <= 4096 and n1 % 32 == 0
     assert n1 >= n2 or n > cf.SPLIT_COLS_LONG_MAX   # long side in the rows
     plan = cf.split_plan(n, packed)
-    y = _cols_pass(z, n1, n2, plan.cols.strip)
-    # Pass 2 (fft_real_rows): block b holds rows pair_row(b, r), r < S2,
-    # all blocks at once; then each (block, slot r, k2) of the epilogue.
     S2 = plan.rows.strip
     assert S2 == cf.fft_real_rows_strip(n2, packed)
+    out, writes = rows_pass_model(_cols_pass(z, n1, n2, plan.cols.strip),
+                                  n1, n2, S2)
+    return out[:rows], writes[:rows]
+
+
+def rows_pass_model(y, n1, n2, S2):
+    """K4a's pass 2 (``fft_real_rows``) on Y (packed, n1, n2) in strips of
+    S2 rows -> (2 * packed, n/2 + 1) spectra and the count of writes to
+    each bin: block b holds rows pair_row(b, r), r < S2, all blocks at
+    once; then each (block, slot r, k2) of the epilogue."""
+    packed, n = y.shape[0], n1 * n2
+    out = np.zeros((2 * packed, n // 2 + 1), complex)
+    writes = np.zeros((2 * packed, n // 2 + 1), int)
     nb, h2 = n1 // S2, n2 // 2
     slot_rows = _slot_rows(n1, S2)                         # (nb, S2)
     buf = block_fft(y[:, slot_rows, :].transpose(0, 1, 3, 2))  # (.,nb,n2,S)
@@ -250,7 +258,7 @@ def fft_real_model(x, n):
     out[0::2, k] = _split_bin(zk, zm, 0)
     out[1::2, k] = _split_bin(zk, zm, 1)
     np.add.at(writes, (slice(None), k), 1)
-    return out[:rows], writes[:rows]
+    return out, writes
 
 
 def _whiten(a, b):
@@ -318,32 +326,9 @@ def bootstrap_peaks_model(s1, x, n, strip=None):
         assert (cs, rs) == cf.split_strips(n1, n2)
         assert plan.boot_cols.strip == cs
         y = _cols_pass(z, n1, n2, cs)
-        # Pass 2 (boot_rows): the forward row DFTs of each block's slots.
-        S2 = strip or rs
-        nb = n1 // S2
-        slot_rows = _slot_rows(n1, S2)                     # (nb, S2)
-        buf = block_fft(y[:, slot_rows, :].transpose(0, 1, 3, 2))
-        # The whitening, block by block, one task a mirror pair.
-        seen = np.zeros(n, int)
-        for b in range(nb):
-            r, k2, row, pr, pk = _boot_tasks(b, S2, n1, n2)
-            assert (slot_rows[b, r] == row).all()
-            p = row + n1 * k2
-            pm = slot_rows[b, pr] + n1 * pk
-            assert ((p + pm) % n == 0).all()
-            np.add.at(seen, p, 1)
-            np.add.at(seen, pm[pm != p], 1)
-            low = p <= n // 2
-            q = np.where(low, p, pm)
-            assert (np.abs(np.diff(q[:S2 // 2 - (b == 0)])) == 1).all()
-            zr, zp = buf[:, b, k2, r], buf[:, b, pk, pr]
-            yq, ym = _boot_pair(s1, np.where(low, zr, zp),
-                                np.where(low, zp, zr), q, n)
-            buf[:, b, pk, pr] = np.where(low, ym, yq)
-            buf[:, b, k2, r] = np.where(low, yq, ym)   # self pairs: yq
-        assert np.array_equal(seen, np.ones(n, int))
-        # The inverse row DFTs, times W_n^{-j2 k1}, written back in place.
-        inv = block_fft(buf, -1.0)                     # (packed, nb, n2, S2)
+        # Pass 2 (boot_rows), then times W_n^{-j2 k1}, written back in
+        # place.
+        inv, slot_rows = boot_rows_model(y, s1, n1, n2, strip or rs)
         lo, hi = _split_tables(n, n1, n2)
         e = np.arange(n2)[None, :, None] * slot_rows[:, None, :]
         w = np.conj(_split_twiddle(lo, hi, e, n1))
@@ -361,6 +346,39 @@ def bootstrap_peaks_model(s1, x, n, strip=None):
         natural = cols.transpose(0, 2, 1, 3).reshape(packed, n)
     corr = np.stack([natural.real, natural.imag], 1).reshape(-1, n) / n
     return maxima.reshape(-1)[:rows] / n, corr[:rows]
+
+
+def boot_rows_model(y, s1, n1, n2, S2):
+    """``boot_rows`` (``boot_rows_long`` above 2^26) on Y (packed, n1, n2)
+    in strips of S2 rows, up to its inverse twiddle: the forward row DFTs
+    of each block's slots, the whitening block by block, one task a
+    mirror pair, and the inverse row DFTs -> ((packed, n1 / S2, n2, S2)
+    rows, (n1 / S2, S2) the row k1 in each slot).  Asserts that the
+    tasks cover every bin once (a pair's two bins, or a self-mirrored
+    bin) and read s1 at consecutive bins."""
+    n = n1 * n2
+    nb = n1 // S2
+    slot_rows = _slot_rows(n1, S2)                     # (nb, S2)
+    buf = block_fft(y[:, slot_rows, :].transpose(0, 1, 3, 2))
+    seen = np.zeros(n, int)
+    for b in range(nb):
+        r, k2, row, pr, pk = _boot_tasks(b, S2, n1, n2)
+        assert (slot_rows[b, r] == row).all()
+        p = row + n1 * k2
+        pm = slot_rows[b, pr] + n1 * pk
+        assert ((p + pm) % n == 0).all()
+        np.add.at(seen, p, 1)
+        np.add.at(seen, pm[pm != p], 1)
+        low = p <= n // 2
+        q = np.where(low, p, pm)
+        assert (np.abs(np.diff(q[:S2 // 2 - (b == 0)])) == 1).all()
+        zr, zp = buf[:, b, k2, r], buf[:, b, pk, pr]
+        yq, ym = _boot_pair(s1, np.where(low, zr, zp),
+                            np.where(low, zp, zr), q, n)
+        buf[:, b, pk, pr] = np.where(low, ym, yq)
+        buf[:, b, k2, r] = np.where(low, yq, ym)   # self pairs: yq
+    assert np.array_equal(seen, np.ones(n, int))
+    return block_fft(buf, -1.0), slot_rows
 
 
 def row_stages_model(xr, xi, n2, inverse=False, rep=1, scale=1.0,
@@ -591,8 +609,11 @@ def test_split_strips_rule(n, strips, rows_strip):
     assert cf.corr_schedule(n) == n1
     spectra = cf.spectra_plan(n)
     assert (spectra.spec_cols.strip, spectra.spec_rows.strip) == strips
-    assert cf._split_n1(2 * cf.FFT_SPLIT_MAX) == 0
-    assert cf._split_strips(0, 2 * cf.FFT_SPLIT_MAX) == (0, 0)
+    # Above 2^26 K9 takes the passes and K4a, K4b and K6 the three-pass
+    # split (``long_plan``).
+    assert cf.corr_schedule(2 * cf.FFT_SPLIT_MAX) == 0
+    assert cf._split_n1(2 * cf.FFT_SPLIT_MAX) == 16384
+    assert cf._split_strips(16384, 2 * cf.FFT_SPLIT_MAX) == (16, 2)
     assert cf.STAGE_SPLIT_MAX == 1 << 20 and cf.SPLIT_COLS_LONG_MAX == 1 << 22
     assert cf.FFT_SPLIT_MAX == 1 << 26
     assert not hasattr(cf, "SPECTRA_SPLIT_MAX")
@@ -648,9 +669,10 @@ def test_split_twiddle_tables(bits):
     assert np.array_equal(t1.view(np.int32), tab[:n // 2:n2].view(np.int32))
     assert np.array_equal(t2.view(np.int32), tab[:n // 2:n1].view(np.int32))
     assert cf._twiddles(4096, "cpu").shape == (2048, 2)
-    # Past the split (2^27, a table of 2^26 entries: its lengths only).
+    # Past the split (2^27, a table of 2^26 entries: its lengths only):
+    # the three-pass split's n1 and n2, then n1a and n1b.
     assert cf._twiddle_lengths(2 * cf.FFT_SPLIT_MAX) == [
-        2 * cf.FFT_SPLIT_MAX]
+        2 * cf.FFT_SPLIT_MAX, 16384, 8192, 128, 128]
 
 
 @pytest.mark.parametrize("n1,n2,strip", [(2048, 1024, 8), (2048, 2048, 8),

@@ -5,20 +5,22 @@ returns False), the kernel library is a stub, and every launch through
 outputs are left as allocated, so these tests read the launches only.
 
 They hold the split of all eight transforming kernels up to 2^26 (strips
-of 8 at 2,048, of 4 at 4,096, of 2 at 8,192), the radix-2 passes above
-that one limit, the byte cap on the split's scratch (``_launch_rows``,
-``scene_chunk``), the GCC routes of K1, K2 and K5 (``gcc_route``: one
-block a scene, ``gcc_rows``, the mic rows' spectra on the split and in
-one block) on both sides of every fit limit and the passes above 2^26
-alone, K3's render through the base rows' spectra from 2^20 to 2^26, the
-row chunks of K4a, K4b, K6 and K9, the scene chunks of K1, K2, K3 and K5
-at the sweep's 65,535 grid limit and under the byte cap at 2^25 and
-2^26, their one-block schedules up to 4,096 points and their
-scratch, the exact-length parity path (K7 only), the api from recorded files
-(K1, K4a, K4b), the compat layer's single pair (K4a + K9 at a power of
-two, K7 otherwise), the api from a recording long enough for K1 at 2^21
-(one launch on the split), array calibration (K1 over the events at a power of
-two, K7 at the exact length) and beamformed extraction (no kernel).
+of 8 at 2,048, of 4 at 4,096, of 2 at 8,192), above that one limit the
+radix-2 passes of K9, K1, K2, K3 and K5 and the three-pass split of K4a,
+K4b and K6 (``long_plan``), the byte cap on the split's scratch
+(``_launch_rows``, ``scene_chunk``), the GCC routes of K1, K2 and K5
+(``gcc_route``: one block a scene, ``gcc_rows``, the mic rows' spectra
+on the split and in one block) on both sides of every fit limit and the
+passes above 2^26 alone, K3's render through the base rows' spectra from
+2^20 to 2^26, the row chunks of K4a, K4b, K6 and K9, the scene chunks of
+K1, K2, K3 and K5 at the sweep's 65,535 grid limit and under the byte
+cap at 2^25 and 2^26, their one-block schedules up to 4,096 points and
+their scratch, the exact-length parity path (K7 only), the api from
+recorded files (K1, K4a, K4b), the compat layer's single pair (K4a + K9
+at a power of two, K7 otherwise), the api from a recording long enough
+for K1 at 2^21 (one launch on the split), array calibration (K1 over the
+events at a power of two, K7 at the exact length) and beamformed
+extraction (no kernel).
 """
 
 from __future__ import annotations
@@ -108,13 +110,17 @@ def test_spectrum_at_2_23_and_2_24_launches_k4a_on_the_split(
 
 def test_spectrum_above_2_22_launches_k4a_on_the_radix2_passes(launches,
                                                               monkeypatch):
-    """At nfft 2^27, past K4a's largest split (``FFT_SPLIT_MAX``, 2^26),
-    K4a's launch takes the radix-2 passes (n1 = 0)."""
+    """At nfft 2^27, past K4a's two-pass split (``FFT_SPLIT_MAX``, 2^26),
+    K4a's one launch takes the three-pass split (``long_plan``), not the
+    radix-2 passes: n1 = 16,384 = 128 x 128 (n1a = 128) with n2 = 8,192,
+    column strips of 16 and pass-2 strips of 2 rows."""
     _no_tables(monkeypatch)
     spec = ttdoa._spectrum(torch.zeros(600_000), 1 << 27)
     assert spec.shape == ((1 << 26) + 1,)
     (args,) = _named(launches, "fft_real")
-    assert args[1:5] == (1, 600_000, 1 << 27, 0)
+    assert args[1:5] == (1, 600_000, 1 << 27, 16384)
+    assert args[5:8] == (16, 2, 128)
+    assert [n for n, _ in launches] == ["fft_real"]
 
 
 @pytest.mark.parametrize("mode,kernel", [("permutation", "bootstrap_peaks"),
@@ -166,9 +172,10 @@ def test_bootstrap_at_2_23_and_2_24_runs_both_nulls_on_the_split(
                                          ("noise", "noise_bootstrap_peaks")])
 def test_bootstrap_above_2_22_runs_both_nulls_on_the_passes(
         launches, monkeypatch, mode, kernel):
-    """At nfft 2^27, past K4a's, K4b's and K6's largest split (2^26), both
-    nulls run K4a and K4b (or K6) on the radix-2 passes (n1 = 0), with
-    twice the packed rows of scratch."""
+    """At nfft 2^27, past K4a's, K4b's and K6's two-pass split (2^26),
+    both nulls run K4a and K4b (or K6) on the three-pass split, not the
+    radix-2 passes: n1 = 16,384, column strips of 16, row strips of 2,
+    n1a = 128, one buffer of the packed rows (no ping-pong copy)."""
     _no_tables(monkeypatch)
     gen = torch.Generator().manual_seed(0)
     sig1 = torch.randn(600_000, generator=gen)
@@ -180,30 +187,34 @@ def test_bootstrap_above_2_22_runs_both_nulls_on_the_passes(
     ttdoa.bootstrap_significance(sig1, sig2, gen, num_bootstrap=4,
                                  bootstrap_mode=mode, nfft=1 << 27)
     assert [n for n, _ in launches] == ["fft_real", kernel]
-    assert _named(launches, "fft_real")[0][4] == 0
+    assert _named(launches, "fft_real")[0][4:8] == (16384, 16, 2, 128)
     (args,) = _named(launches, kernel)
-    assert args[2:6] == (4, 600_000, 1 << 27, 0)
-    assert scratch == [(2, 1 << 27), (4, 1 << 27)]
+    # (.., rows, length or n_samp, nfft, n1, column strip, row strip, n1a)
+    assert args[2:9] == (4, 600_000, 1 << 27, 16384, 16, 2, 128)
+    assert scratch == [(1, 1 << 27), (2, 1 << 27)]
 
 
 @pytest.mark.parametrize("nfft,n1,strips", [
     (4096, 1, (0, 0)), (1 << 16, 256, (16, 16)), (1 << 20, 1024, (16, 16)),
     (1 << 21, 2048, (8, 16)), (1 << 22, 2048, (8, 8)),
     (1 << 23, 2048, (8, 4)), (1 << 24, 4096, (4, 4)),
-    (1 << 25, 4096, (4, 2)), (1 << 26, 8192, (2, 2)), (1 << 27, 0, (0, 0))])
+    (1 << 25, 4096, (4, 2)), (1 << 26, 8192, (2, 2)),
+    (1 << 27, 16384, (16, 2))])
 def test_fft_real_schedule_by_length(launches, monkeypatch, nfft, n1,
                                      strips):
-    """K4a's n1 (``_split_n1``) and the strips of its two passes: 16 and
-    16 up to 2^20, 8 columns from n1 = 2,048 and 8 rows at n2 = 2,048, 4
-    rows at n2 = 4,096 (2^23), 4 columns at n1 = 4,096 (2^24, 2^25), 2
-    rows at n2 = 8,192 (2^25, 2^26) and 2 columns at n1 = 8,192 (2^26);
-    one block (n1 = 1) and the passes (n1 = 0, above 2^26) read neither
-    and get 0."""
+    """K4a's n1 (``_split_n1``) and the strips of its passes: 16 and 16 up
+    to 2^20, 8 columns from n1 = 2,048 and 8 rows at n2 = 2,048, 4 rows at
+    n2 = 4,096 (2^23), 4 columns at n1 = 4,096 (2^24, 2^25), 2 rows at n2
+    = 8,192 (2^25, 2^26) and 2 columns at n1 = 8,192 (2^26); one block (n1
+    = 1) reads neither and gets 0; above 2^26 the three-pass split, n1 =
+    16,384 = n1a x 128 at 2^27, its column passes' 16 columns and pass 2's
+    2 rows.  n1a is 0 up to 2^26."""
     _no_tables(monkeypatch)
     cf.fft_real(torch.zeros(2, 100), nfft)
     (args,) = _named(launches, "fft_real")
     assert args[3:5] == (nfft, n1)
     assert args[5:7] == strips
+    assert args[7] == (128 if nfft > cf.FFT_SPLIT_MAX else 0)
 
 
 def _route(kernel, nfft, length=None):
@@ -671,8 +682,9 @@ def test_all_transforming_kernels_leave_the_split_together(
         launches, monkeypatch, bits, n1):
     """All eight kernels that transform (K4a, K4b, K6, K9, K1, K2, K3, K5)
     launch on the split at 2^24 and 2^25 (n1 = 4,096) and 2^26
-    (``FFT_SPLIT_MAX``, n1 = 8,192), one limit; at 2^27 all eight take
-    the radix-2 passes (n1 = 0) together."""
+    (``FFT_SPLIT_MAX``, n1 = 8,192), one limit; at 2^27 the five of the
+    spectra routes take the radix-2 passes (n1 = 0) together, and K4a, K4b
+    and K6 the three-pass split (n1 = 16,384)."""
     nfft = 1 << bits
     length = None
     if bits > 25:          # no table, and short rows, at 2^26 and 2^27
@@ -692,7 +704,11 @@ def test_all_transforming_kernels_leave_the_split_together(
         got = args[N1_OF[name]]
         if name == "scene_windowed":
             got = args[7:10]
-        assert got == (nfft,) + (n1,) * (len(got) - 1), name
+        want = n1
+        if bits == 27 and name in ("fft_real", "bootstrap_peaks",
+                                   "noise_bootstrap_peaks"):
+            want = 16384
+        assert got == (nfft,) + (want,) * (len(got) - 1), name
 
 
 # ---------------------------------------------------------------------------
@@ -707,17 +723,17 @@ def _row_counts(calls, name, index):
     (22, 1000, [1000]), (23, 1000, [512, 488]),
     (24, 1000, [256, 256, 256, 232]), (24, 300, [256, 44]),
     (25, 100, [100]), (25, 200, [128, 72]), (26, 100, [64, 36]),
-    (27, 20, [16, 4])])
+    (27, 40, [32, 8]), (28, 20, [16, 4])])
 def test_bootstraps_cap_their_scratch_by_bytes(launches, monkeypatch, bits,
                                                draws, want):
     """K4b's and K6's launches take at most ``_launch_rows`` rows: as many
     as keep the scratch within ``SPLIT_SCRATCH_BYTES`` (16 GiB; one buffer
-    of packed rows on the split, two on the passes), an even count.  1,000
-    draws at 2^22 keep one launch (16.8 GB); 512 rows a launch at 2^23, 256
-    at 2^24, 128 at 2^25 (100 draws keep one launch), 64 at 2^26, 16 on
-    the passes at 2^27.  Each chunk's rows, seeds and peaks start where
-    the previous chunk ended, and the scratch holds the first chunk's
-    packed rows."""
+    of packed rows on the split), an even count.  1,000 draws at 2^22 keep
+    one launch (16.8 GB); 512 rows a launch at 2^23, 256 at 2^24, 128 at
+    2^25 (100 draws keep one launch), 64 at 2^26, 32 at 2^27 and 16 at
+    2^28 on the three-pass split.  Each chunk's rows, seeds and peaks start
+    where the previous chunk ended, and the scratch holds the first
+    chunk's packed rows."""
     _no_tables(monkeypatch)
     nfft = 1 << bits
     n1 = cf._split_n1(nfft)
@@ -730,8 +746,7 @@ def test_bootstraps_cap_their_scratch_by_bytes(launches, monkeypatch, bits,
     cf.bootstrap_peaks(s1, torch.zeros(draws, 16), nfft)
     cf.noise_bootstrap_peaks(s1, torch.zeros(draws, 2, dtype=torch.int32),
                              16, nfft)
-    copies = 2 if n1 == 0 else 1
-    assert scratch == [copies * ((want[0] + 1) // 2)] * 2
+    assert scratch == [(want[0] + 1) // 2] * 2
     assert scratch[0] * nfft * 8 <= cf.SPLIT_SCRATCH_BYTES
     for name in ("bootstrap_peaks", "noise_bootstrap_peaks"):
         calls = _named(launches, name)

@@ -1,5 +1,6 @@
-"""The four-step split of every transforming kernel at 2^25 and 2^26,
-checked on the CPU: the rules that pick its shapes, strips, shared memory
+"""The four-step split of every transforming kernel at 2^25 and 2^26, and
+K4a's, K4b's and K6's three-pass split above (2^27 to 2^30), checked on
+the CPU: the rules that pick its shapes, strips, shared memory
 and launches (``cuda_fft.fft_real_split``, ``split_strips``,
 ``fft_real_rows_strip``, ``split_plan``, ``spectra_plan``, ``_split_n1``,
 ``_launch_rows``), the one limit ``FFT_SPLIT_MAX`` of K4a, K4b, K6 and
@@ -12,8 +13,14 @@ table read as ``HiTable`` reads it, against ``np.fft`` or the float64
 twins: K4a, K4b, K9 and K3's render.  At 2^26 the maps alone (a model
 there would take twice 2^25's memory).
 
-At 2^27 every transforming kernel takes the radix-2 passes.  No n-point
-table above 2^25 is built here: at 2^27 it holds 2^26 entries.
+At 2^27 the spectra routes take the radix-2 passes, and K4a, K4b and K6
+the three-pass split (``long_plan``, ``FFT_LONG_MAX``): its plan and
+limits at 2^27 to 2^30, one block's maps at 2^27 by index arithmetic,
+and a float64 numpy model of its passes (A and B, K4a's row pass,
+``boot_rows_long``, B' and A' with the maxima) whose factors n1a x n1b x
+n2 are the model's arguments, small, against ``np.fft`` and the float64
+twins.  No n-point table above 2^25 is built here: at 2^27 it holds 2^26
+entries.
 """
 
 import numpy as np
@@ -106,18 +113,285 @@ def test_long_split_plan(bits):
 
 
 def test_passes_above_2_26():
-    """At 2^27, past ``FFT_SPLIT_MAX``, K4a, K4b and K6 take the radix-2
-    passes (n1 = 0): no strips, no plan, two copies of the packed rows'
-    scratch (16 rows a launch under the 16 GiB cap), the n-point table
-    alone."""
+    """At 2^27, past ``FFT_SPLIT_MAX``, K4a, K4b and K6 leave the radix-2
+    passes for the three-pass split (``long_plan``): n1 = 128 x 128 with
+    n2 = 8,192, column strips of 16, row strips of 2, one copy of the
+    packed rows' scratch (32 rows a launch under the 16 GiB cap), the
+    n1a- and n1b-point half tables after the n-, n1- and n2-point ones;
+    ``split_plan`` still plans the two-pass split alone."""
     n = 1 << 27
     assert cf.FFT_SPLIT_MAX == 1 << 26 < n
-    assert cf._split_n1(n) == 0 and cf._split_strips(0, n) == (0, 0)
+    assert cf._split_n1(n) == 16384 and cf._long_n1a(n) == 128
+    assert cf._split_strips(16384, n) == (16, 2)
     with pytest.raises(ValueError):
         cf.split_plan(n)
-    assert cf._launch_rows(0, n) == 16
-    assert 2 * (16 // 2) * n * 8 <= cf.SPLIT_SCRATCH_BYTES
-    assert cf._twiddle_lengths(n) == [n]
+    assert cf._launch_rows(16384, n) == 32
+    assert (32 // 2) * n * 8 <= cf.SPLIT_SCRATCH_BYTES
+    assert cf._twiddle_lengths(n) == [n, 16384, 8192, 128, 128]
+    assert cf.corr_schedule(n) == 0
+
+
+# The three-pass split at 2^27 to 2^30: (n1a, n1b), rows a launch under
+# the 16 GiB cap (``_launch_rows``) and the column passes' bytes (pass A,
+# pass B); both row passes hold 163,968 bytes.
+THREE = {27: ((128, 128), 32, (16_896, 16_896)),
+         28: ((256, 128), 16, (33_792, 16_896)),
+         29: ((256, 256), 8, (33_792, 33_792)),
+         30: ((512, 256), 4, (67_584, 33_792))}
+
+
+@pytest.mark.parametrize("bits", [27, 28, 29, 30])
+def test_three_pass_plan(bits):
+    """``long_plan`` at 2^27 to 2^30: n = n1 x 8,192 (the row side of
+    2^26) with n1 = n1a x n1b; both column passes in strips of 16 columns
+    (128 bytes of each row a block reads or writes, whole 32-byte
+    sectors), at most ``BLOCK_POINTS`` points and ``SMEM_OPTIN`` bytes a
+    block (``long_cols_max`` 128 more); the row passes in strips of 2 rows
+    at any batch (row k1 and its partner), 163,968 bytes; the launches'
+    rows, grids within their limits and the int index products below
+    2^31; the entry points' arguments (n1, strips, n1a)."""
+    n = 1 << bits
+    (n1a, n1b), rows, (a_smem, b_smem) = THREE[bits]
+    n1, n2 = cf.fft_real_split(n)
+    assert (n1, n2) == (n1a * n1b, 8192)
+    for packed in (1, 2, 64):
+        plan = cf.long_plan(n, packed)
+        assert (plan.n1a, plan.n1b) == (n1a, n1b)
+        assert plan.cols_a == (16, a_smem) and plan.cols_b == (16, b_smem)
+        assert plan.rows == plan.boot_rows == (2, 163_968)
+        assert plan.rows.strip == cf.fft_real_rows_strip(n2, packed)
+        for step, length in ((plan.cols_a, n1a), (plan.cols_b, n1b),
+                             (plan.rows, n2), (plan.boot_rows, n2)):
+            assert step.strip * length <= cf.BLOCK_POINTS
+            assert step.smem <= cf.SMEM_OPTIN
+        assert plan.cols_a.smem + 128 <= cf.SMEM_OPTIN
+        assert 8 * plan.cols_a.strip >= 128
+    assert max(n1a, n1b) * 16 <= cf.BLOCK_POINTS
+    assert cf.SPLIT_STRIPS[0] == 16
+    assert cf._split_n1(n) == n1 and cf._long_n1a(n) == n1a
+    assert cf._split_strips(n1, n) == (16, 2)
+    assert cf._launch_rows(n1, n) == rows
+    assert rows * n * 8 // 2 <= cf.SPLIT_SCRATCH_BYTES
+    assert cf._twiddle_lengths(n) == [n, n1, n2, n1a, n1b]
+    # Grids: pass A (n1b * n2/16, packed), pass B (n1a * n2/16, packed),
+    # the row passes (n1/2, packed); every index product in int (n - 1,
+    # j2 * k1, the spectra's 2 bins + k) below 2^31.
+    assert n1b * n2 // 16 < 2 ** 31 and n1a * n2 // 16 < 2 ** 31
+    assert (rows + 1) // 2 <= cf._MAX_GRID_Y
+    assert n - 1 < 2 ** 31 and (n2 - 1) * (n1 - 1) < 2 ** 31
+    assert (n // 2 + 1) + n // 2 < 2 ** 31
+    assert cf.corr_schedule(n) == 0
+
+
+def test_long_limit():
+    """The three-pass split ends at ``FFT_LONG_MAX`` = 2^30, the largest
+    nfft whose int n the entry points take: past it every wrapper raises
+    (``_check_pow2``; before, 2^31 wrapped to a negative int in ctypes),
+    and so do the plans; ``long_plan`` plans only above ``FFT_SPLIT_MAX``."""
+    assert cf.FFT_LONG_MAX == 1 << 30
+    cf._check_pow2(cf.FFT_LONG_MAX)
+    for bad in (2 * cf.FFT_LONG_MAX, 3, 100):
+        with pytest.raises(ValueError):
+            cf._check_pow2(bad)
+    with pytest.raises(ValueError):
+        cf.fft_real_split(2 * cf.FFT_LONG_MAX)
+    for bad in (cf.FFT_SPLIT_MAX, 2 * cf.FFT_LONG_MAX):
+        with pytest.raises(ValueError):
+            cf.long_plan(bad)
+
+
+# ---------------------------------------------------------------------------
+# The three-pass split's float64 model (factors given to the model)
+# ---------------------------------------------------------------------------
+
+def _long_a_maps(n1a, n1b, n2, strip, blocks=None):
+    """Pass A's (and A''s) maps, (blocks, n1a * strip) each (every block,
+    or the blocks given): the point t
+    that block (j1b, strip c0) loads into slot idx = j1a * strip + s (and
+    where A' leaves sample t), the position r n2 + j2 of slot idx = k1a *
+    strip + s in the packed row's buffer (row k1a + n1a j1b), j1b and
+    k1a."""
+    strips = n2 // strip
+    blk = np.arange(n1b * strips) if blocks is None else np.array(blocks)
+    j1b, c0 = blk[:, None] // strips, blk[:, None] % strips * strip
+    idx = np.arange(n1a * strip)[None, :]
+    j, s = idx // strip, idx % strip
+    return ((n1b * j + j1b) * n2 + c0 + s, (j + n1a * j1b) * n2 + c0 + s,
+            j1b, j)
+
+
+def _long_b_maps(n1a, n1b, n2, strip, blocks=None):
+    """Pass B's (and B''s) maps, (blocks, n1b * strip) each (every block,
+    or the blocks given): the position
+    r n2 + j2 of slot idx = q * strip + s of block (k1a, strip c0) in the
+    buffer, read (q = j1b) and written (q = k1b; B' the other way), its
+    row r = k1a + n1a q and column j2."""
+    strips = n2 // strip
+    blk = np.arange(n1a * strips) if blocks is None else np.array(blocks)
+    k1a, c0 = blk[:, None] // strips, blk[:, None] % strips * strip
+    idx = np.arange(n1b * strip)[None, :]
+    row, j2 = k1a + n1a * (idx // strip), c0 + idx % strip
+    return row * n2 + j2, row, j2
+
+
+def long_forward_model(z, n1a, n1b, n2, strip=fs.S):
+    """Passes A and B (``long_cols_a``, ``long_cols_b``) on packed rows z
+    (packed, n) -> Y (packed, n1, n2), Y[k1, j2] as ``fft_real_cols``
+    writes it; asserts that each pass reads and writes every point once
+    and pass B the positions it read."""
+    packed = z.shape[0]
+    n1 = n1a * n1b
+    n = n1 * n2
+    t, dst, j1b, k1a = _long_a_maps(n1a, n1b, n2, strip)
+    for m in (t, dst):
+        assert np.array_equal(np.bincount(m.ravel(), minlength=n),
+                              np.ones(n, int))
+    cols = fs.block_fft(z[:, t].reshape(packed, -1, n1a, strip))
+    y = np.full((packed, n), np.nan, complex)
+    y[:, dst] = cols.reshape(packed, *t.shape) * fs._twiddle(
+        fs._half_table(n1), j1b * k1a)
+    pos, row, j2 = _long_b_maps(n1a, n1b, n2, strip)
+    assert np.array_equal(np.bincount(pos.ravel(), minlength=n),
+                          np.ones(n, int))
+    cols = fs.block_fft(y[:, pos].reshape(packed, -1, n1b, strip))
+    lo, hi = _tables_as_read(n, n1, n2)
+    y[:, pos] = cols.reshape(packed, *pos.shape) * fs._split_twiddle(
+        lo, hi, j2 * row, n1)
+    return y.reshape(packed, n1, n2)
+
+
+def long_fft_real_model(x, n1a, n1b, n2):
+    """K4a on the three-pass split n1a x n1b x n2: passes A and B, then
+    K4a's pass 2 in strips of 2 rows -> ((rows, n/2 + 1) spectra, writes
+    to each bin)."""
+    n = n1a * n1b * n2
+    y = long_forward_model(fs._pack(x, n), n1a, n1b, n2)
+    out, writes = fs.rows_pass_model(y, n1a * n1b, n2, 2)
+    return out[:x.shape[0]], writes[:x.shape[0]]
+
+
+def long_bootstrap_model(s1, x, n1a, n1b, n2, strip=fs.S):
+    """K4b on the three-pass split n1a x n1b x n2: passes A and B,
+    ``boot_rows_long`` (strips of 2 rows, no inverse twiddle), B' (the
+    conjugate twiddle, the inverse n1b-point DFTs) and A' (the conjugate
+    W_n1, the inverse n1a-point DFTs, each block's maxima) -> ((rows,)
+    maxima, (rows, n) correlations in natural order)."""
+    rows = x.shape[0]
+    n1 = n1a * n1b
+    n = n1 * n2
+    y = long_forward_model(fs._pack(x, n), n1a, n1b, n2, strip)
+    packed = y.shape[0]
+    inv, slot_rows = fs.boot_rows_model(y, s1, n1, n2, 2)
+    y[:, slot_rows, :] = inv.transpose(0, 1, 3, 2)
+    y = y.reshape(packed, n)
+    pos, row, j2 = _long_b_maps(n1a, n1b, n2, strip)
+    lo, hi = _tables_as_read(n, n1, n2)
+    w = np.conj(fs._split_twiddle(lo, hi, j2 * row, n1))
+    cols = fs.block_fft((y[:, pos] * w).reshape(packed, -1, n1b, strip),
+                        -1.0)
+    y[:, pos] = cols.reshape(packed, *pos.shape)
+    t, dst, j1b, k1a = _long_a_maps(n1a, n1b, n2, strip)
+    w1 = np.conj(fs._twiddle(fs._half_table(n1), j1b * k1a))
+    cols = fs.block_fft((y[:, dst] * w1).reshape(packed, -1, n1a, strip),
+                        -1.0)                     # (packed, blocks, n1a, S)
+    maxima = np.stack([cols.real.max(axis=(2, 3)).max(-1),
+                       cols.imag.max(axis=(2, 3)).max(-1)], -1)
+    natural = np.empty((packed, n), complex)
+    natural[:, t] = cols.reshape(packed, *t.shape)
+    corr = np.stack([natural.real, natural.imag], 1).reshape(-1, n) / n
+    return maxima.reshape(-1)[:rows] / n, corr[:rows]
+
+
+# (n1a, n1b, n2): the model's factors, small, and with the program's row
+# side (n2 = 8,192: the row passes' strips of 2 rows of 8,192 points).
+FACTORS = [(8, 8, 64), (16, 8, 128), (8, 16, 8192)]
+
+
+@pytest.mark.parametrize("factors", FACTORS)
+def test_three_pass_fft_real_model(factors):
+    """K4a on the three-pass split against np.fft.rfft, one, two and
+    three rows: each bin written exactly once, DC and Nyquist exactly
+    real."""
+    n = int(np.prod(factors))
+    rng = np.random.default_rng(n)
+    for rows in (1, 2, 3):
+        x = fs._rows(rng, rows, n - n // 4 - 1)
+        got, writes = long_fft_real_model(x, *factors)
+        want = np.fft.rfft(x, n=n)
+        assert np.array_equal(writes, np.ones_like(writes))
+        assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
+        assert not got[:, 0].imag.any() and not got[:, -1].imag.any()
+
+
+@pytest.mark.parametrize("factors", FACTORS)
+def test_three_pass_bootstrap_model(factors):
+    """K4b (and so K6, whose draws the same passes transform) on the
+    three-pass split, one and three rows: the correlations and their
+    maxima against irfft(whiten(s1 * conj(rfft(row)))) and
+    ``bootstrap_peaks_plain``."""
+    n = int(np.prod(factors))
+    rng = np.random.default_rng(n + 1)
+    for rows in (1, 3):
+        s1, x = fs._boot_case(rng, rows, n)
+        peaks, corr = long_bootstrap_model(s1, x, *factors)
+        want = fs._boot_reference(s1, x, n)
+        tol = 1e-9 * np.abs(want).max()
+        assert np.abs(corr - want).max() < tol
+        assert np.abs(peaks - want.max(-1)).max() < tol
+        plain = cf.bootstrap_peaks_plain(torch.from_numpy(s1),
+                                         torch.from_numpy(x), n).numpy()
+        assert np.abs(peaks - plain).max() < tol
+
+
+def test_three_pass_maps_at_2_27():
+    """One block's maps at 2^27 (128 x 128 x 8,192, strips of 16), by
+    index arithmetic alone: pass A's blocks (j1b, strip) load points n2
+    (n1b j1a + j1b) + j2 in runs of 16 consecutive samples (64 bytes of
+    each real row) and write 16 consecutive points (128 bytes) of rows
+    k1a + n1a j1b; pass B's blocks (k1a, strip) read and write the same
+    128-byte runs of rows k1a + n1a q; both maps are one to one (a
+    sample of points maps back to the block and slot that hold it);
+    ``boot_rows_long``'s blocks hold rows b and n1 - b (block 0 rows 0
+    and n1/2), each whitening task a bin and its mirror."""
+    n = 1 << 27
+    plan = cf.long_plan(n)
+    n1a, n1b, S = plan.n1a, plan.n1b, plan.cols_a.strip
+    n1, n2 = cf.fft_real_split(n)
+    strips = n2 // S
+    for blk in (0, 1, strips, n1b * strips - 1):
+        t, dst = (m[0] for m in _long_a_maps(n1a, n1b, n2, S, [blk])[:2])
+        runs = t.reshape(n1a, S)
+        assert (np.diff(runs, axis=-1) == 1).all()
+        assert (np.diff(runs[:, 0]) == n1b * n2).all()
+        out = dst.reshape(n1a, S)
+        assert (np.diff(out, axis=-1) == 1).all()
+        assert (np.diff(out[:, 0]) == n2).all()
+        assert out[0, 0] // n2 == n1a * (blk // strips)
+        pos = _long_b_maps(n1a, n1b, n2, S, [blk])[0].reshape(n1b, S)
+        assert (np.diff(pos, axis=-1) == 1).all()
+        assert (np.diff(pos[:, 0]) == n1a * n2).all()
+    rng = np.random.default_rng(27)
+    t = rng.integers(0, n, 100_000)
+    j1, j2 = t // n2, t % n2
+    blk_a = (j1 % n1b) * strips + j2 // S
+    slot_a = (j1 // n1b) * S + j2 % S
+    assert np.array_equal(((n1b * (slot_a // S) + blk_a // strips) * n2
+                           + blk_a % strips * S + slot_a % S), t)
+    blk_b = (j1 % n1a) * strips + j2 // S
+    slot_b = (j1 // n1a) * S + j2 % S
+    assert np.array_equal((blk_b // strips + n1a * (slot_b // S)) * n2
+                          + blk_b % strips * S + slot_b % S, t)
+    slot_rows = np.array([[fs._pair_row(b, r, n1, 1) for r in range(2)]
+                          for b in (0, 1, n1 // 2 - 1)])
+    assert slot_rows.tolist() == [[0, n1 // 2], [1, n1 - 1],
+                                  [n1 // 2 - 1, n1 // 2 + 1]]
+    for i, b in enumerate((0, 1, n1 // 2 - 1)):
+        r, k2, row, pr, pk = fs._boot_tasks(b, 2, n1, n2)
+        assert (slot_rows[i, r] == row).all()
+        p = row + n1 * k2
+        pm = slot_rows[i, pr] + n1 * pk
+        assert ((p + pm) % n == 0).all()
+        assert len(p) == n2 + (b == 0)
 
 
 # The spectra routes at 2^24 to 2^26: (n1, column strip, row strip) of

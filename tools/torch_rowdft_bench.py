@@ -45,12 +45,14 @@ shapes (``GCC_SHAPES``) and K9 at the single pair's lengths and an edge
 (``CORR_SHAPES``), each held against its twin, by CUDA events and in
 device time by kernel, beside the twin's times (cuFFT).  ``--long``
 times only K4a, K4b, K6, K1 and K9 at their shapes above 2^20 (two rows
-of a 23.7 s pair at 2^21 and one row at 2^22, 2^23, 2^24, 2^25 and 2^26
-against ``torch.fft.rfft``; the pair's null at 64 and 1,000 draws, one
-row at 2^22 and three at 2^23, 2^24, 2^25 and 2^26, the 200 s
-recording's 64 draws a pair at 2^25, K6 also at 1,000 draws at 2^23 and
-300 at 2^24, each K4b or K6 case from ``HEAVY_POINTS`` timed one call a
-loop and logged as not fitting where the card runs out of memory; K1 at the
+of a 23.7 s pair at 2^21 and one row at 2^22, 2^23, 2^24, 2^25, 2^26,
+2^27, 2^28 and 2^30 against ``torch.fft.rfft``; the pair's null at 64
+and 1,000 draws, one row at 2^22 and three at 2^23 to 2^28 (two at
+2^30), the 200 s recording's 64 draws a pair at 2^25, K6 also at 1,000
+draws at 2^23 and 300 at 2^24, each K4b or K6 case from ``HEAVY_POINTS``
+timed one call a loop and logged as not fitting where the card runs out
+of memory; ``--min-nfft N`` and ``--max-nfft M``: K4a's, K4b's and K6's
+shapes from N to M points alone, and K1 and K9 only from N <= 2^26; K1 at the
 23.7 s recording's 4 and 8 mics at 2^21, 4 mics at 2^22, 4 and 8 at 2^23,
 4 at 2^24, 4 and 8 at 2^25 and 4 at 2^26, K9 at one pair of each);
 ``--gcc --long`` times only K1 and K9 (``ROUTE_GCC``) and K2, K3 and K5
@@ -64,9 +66,11 @@ device time by kernel), each after the spectra kernels' ptxas lines;
 ``--recording`` runs chip_smoke.py's 4 x 24 s
 recording (phase 10, ``long_recording``) from this tree at 2^21 and 2^22,
 its 4 x 60 s recording at 2^23 (``recording23``), its 4 x 200 s
-recording at 2^25 (``recording25``) and its recordings of the spectra
-routes (``spectra_recordings``, 2^20 to 2^23): their wall time cold and
-warm and their device time by kernel.  ``--trace`` (alone)
+recording at 2^25 (``recording25``), its 4 x 800 s recording at 2^27
+(``recording27``) and its recordings of the spectra routes
+(``spectra_recordings``, 2^20 to 2^23), with ``--min-nfft N`` those from
+N points on: their wall time cold and warm and their device time by
+kernel.  ``--trace`` (alone)
 counts the ``device_ms`` traces that miss a kernel, with and without
 their idle edges (``trace_check``).  ``k10``
 (``--k10``, alone) times K10a (``row_dft``), K10b (``row_stages``) and
@@ -83,7 +87,7 @@ machine with the card:
     python tools/torch_rowdft_bench.py [--reps 5] [--k4a | --boot | --k6 |
                                         --scene | --gcc | --k10 | --long |
                                         --recording | --trace]
-                                       [--min-nfft N]
+                                       [--min-nfft N] [--max-nfft M]
 
 ``chip_smoke.py`` runs it once as its phase 7 (``run``).  To A/B two
 versions of the package in one call, run this file from a copy of each
@@ -116,29 +120,34 @@ CHAIN_MIN_N2 = 512
 # recording at 44.1 kHz at 2^21 and one row of 2,000,000 samples at 2^22,
 # and (the split past 2^22, the long side in the rows) sig1 of a 47.5 s,
 # a 95 s, a 190 s and a 375 s recording at 44.1 kHz under
-# max_expected_delay=None (2^23 to 2^26).
+# max_expected_delay=None (2^23 to 2^26), and past the split (K4a's, K4b's
+# and K6's three-pass split) a 1,520 s, a 3,039 s and a 9,070 s one (2^27,
+# 2^28 and 2^30: ``chip_smoke.py``'s phase-3 lengths).
 K4A_TOL = 5e-6
 LONG = 1046019            # 23.7 s at 44.1 kHz: the api's nfft is 2^21
 REC25 = 8820000           # 200 s at 44.1 kHz: 2^25 under the None gate
+LONG27, LONG28, LONG30 = 67000000, 134000000, 400000000
 K4A_SHAPES = ((1, 44100, 65536), (2, 44100, 65536), (1, 44100, 131072),
               (1024, 65536, 65536), (2, LONG, 1 << 21),
               (1, 2000000, 1 << 22), (1, 4200000, 1 << 23),
               (1, 8400000, 1 << 24), (1, 16800000, 1 << 25),
-              (1, 33000000, 1 << 26))
+              (1, 33000000, 1 << 26), (1, LONG27, 1 << 27),
+              (1, LONG28, 1 << 28), (1, LONG30, 1 << 30))
 # K4b against its twin, absolute (peaks of correlations bounded by 1), at
 # the permutation null's shapes (rows, len, nfft): the main path's and
 # no_gate's lengths, two rows (16-row strips) and one block, and above 2^20
 # the 23.7 s pair's null at phase 10's 64 and the default 1,000 draws,
-# one row at 2^22 and three at 2^23 to 2^26, and the 200 s recording's 64
-# draws a pair at 2^25; K7 at one scene's exact-length spectrum; the calls
-# a host step is timed over.
+# one row at 2^22 and three at 2^23 to 2^28 (two at 2^30), and the 200 s
+# recording's 64 draws a pair at 2^25; K7 at one scene's exact-length
+# spectrum; the calls a host step is timed over.
 BOOT_TOL = 1e-6
 BOOT_SHAPES = ((1000, 44100, 65536), (1000, 44100, 131072),
                (2, 44100, 65536), (999, 3000, 4096), (64, LONG, 1 << 21),
                (1000, LONG, 1 << 21), (1, 2000000, 1 << 22),
                (3, 4200000, 1 << 23), (3, 8400000, 1 << 24),
                (3, 16800000, 1 << 25), (3, 33000000, 1 << 26),
-               (64, REC25, 1 << 25))
+               (64, REC25, 1 << 25), (3, LONG27, 1 << 27),
+               (3, LONG28, 1 << 28), (2, LONG30, 1 << 30))
 K7_SHAPE = (1, 44100)
 HOST_CALLS = 10_000
 # K6 at the noise null's shapes (draws, n_samp, nfft): the main path's and
@@ -150,7 +159,9 @@ K6_SHAPES = ((1000, 44100, 65536), (1000, 44100, 131072), (2, 44100, 65536),
              (1, 2000000, 1 << 22), (3, 4200000, 1 << 23),
              (3, 8400000, 1 << 24), (1000, 4200000, 1 << 23),
              (300, 8400000, 1 << 24), (3, 16800000, 1 << 25),
-             (3, 33000000, 1 << 26), (64, REC25, 1 << 25))
+             (3, 33000000, 1 << 26), (64, REC25, 1 << 25),
+             (3, LONG27, 1 << 27), (3, LONG28, 1 << 28),
+             (2, LONG30, 1 << 30))
 # Points (rows x nfft) from which K4b and K6 are timed by one call a loop
 # and traced over one call (a parent tree's radix-2 passes take seconds a
 # call there).
@@ -268,7 +279,8 @@ GCC_TOL = 1e-6
 # The split's kernels whose compiler report --long prints (K4a's, K4b's
 # and K6's, then the spectra routes'; --gcc --long and --scene --long
 # print the latter alone).
-SPLIT_KERNELS = ("fft_real_cols", "fft_real_rows", "boot_rows", "boot_cols")
+SPLIT_KERNELS = ("fft_real_cols", "fft_real_rows", "boot_rows", "boot_cols",
+                 "long_cols")
 SPECTRA_KERNELS = ("corr_rows", "corr_cols", "window_cols",
                    "render_spec_rows", "render_cols")
 
@@ -484,8 +496,11 @@ def _split(dev: dict) -> str:
                      if k not in ("total", "kernels"))
 
 
-def _shapes(shapes, min_nfft: int):
-    return [s for s in shapes if s[2] >= min_nfft]
+def _shapes(shapes, min_nfft: int, max_nfft: int = 0):
+    """The (rows, length, nfft) shapes from ``min_nfft`` on, and up to
+    ``max_nfft`` where it is given."""
+    return [s for s in shapes
+            if s[2] >= min_nfft and not (max_nfft and s[2] > max_nfft)]
 
 
 def _calls(rows: int, nfft: int, reps: int):
@@ -494,16 +509,17 @@ def _calls(rows: int, nfft: int, reps: int):
     return (reps, 5) if rows * nfft < HEAVY_POINTS else (1, 1)
 
 
-def k4a(reps: int = 20, log=print, min_nfft: int = 0) -> dict:
+def k4a(reps: int = 20, log=print, min_nfft: int = 0,
+        max_nfft: int = 0) -> dict:
     """K4a against ``torch.fft.rfft`` at ``K4A_SHAPES`` (those from
-    ``min_nfft`` on), each held against its twin: CUDA-event ms per call
-    (``time_ms``, five loops) and device ms per call (``device_ms``, by
-    kernel).  Logs one line per shape and returns {shape: {"k4a", "rfft",
-    "k4a_device", "rfft_device"}}."""
+    ``min_nfft`` to ``max_nfft``), each held against its twin: CUDA-event
+    ms per call (``time_ms``, five loops) and device ms per call
+    (``device_ms``, by kernel).  Logs one line per shape and returns
+    {shape: {"k4a", "rfft", "k4a_device", "rfft_device"}}."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
-    for rows, length, nfft in _shapes(K4A_SHAPES, min_nfft):
+    for rows, length, nfft in _shapes(K4A_SHAPES, min_nfft, max_nfft):
         x = torch.randn((rows, length), generator=gen, device=dev)
         shape = f"{rows} x {length} -> {nfft}"
         check(f"k4a {shape}", cf.fft_real(x, nfft),
@@ -522,9 +538,11 @@ def k4a(reps: int = 20, log=print, min_nfft: int = 0) -> dict:
     return out
 
 
-def boot(reps: int = 10, log=print, min_nfft: int = 0) -> dict:
+def boot(reps: int = 10, log=print, min_nfft: int = 0,
+         max_nfft: int = 0) -> dict:
     """K4b against its twin at ``BOOT_SHAPES`` (permuted rows of one
-    signal, as the permutation null draws them; those from ``min_nfft`` on)
+    signal, as the permutation null draws them; those from ``min_nfft`` to
+    ``max_nfft``)
     and, without ``min_nfft``, K7 against its twin and ``torch.sgn`` at
     ``K7_SHAPE``: CUDA-event ms per call (``time_ms``, median of three
     loops), device ms per call by kernel and device kernels per call
@@ -533,7 +551,7 @@ def boot(reps: int = 10, log=print, min_nfft: int = 0) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
-    for rows, length, nfft in _shapes(BOOT_SHAPES, min_nfft):
+    for rows, length, nfft in _shapes(BOOT_SHAPES, min_nfft, max_nfft):
         sig = torch.randn(length, generator=gen, device=dev)
         keys = torch.rand((rows, length), generator=gen, device=dev)
         x = sig[torch.argsort(keys, dim=-1)].contiguous()
@@ -573,8 +591,10 @@ def boot(reps: int = 10, log=print, min_nfft: int = 0) -> dict:
     return out
 
 
-def k6(reps: int = 10, log=print, min_nfft: int = 0) -> dict:
-    """K6 against its twin at ``K6_SHAPES`` (those from ``min_nfft`` on):
+def k6(reps: int = 10, log=print, min_nfft: int = 0,
+       max_nfft: int = 0) -> dict:
+    """K6 against its twin at ``K6_SHAPES`` (those from ``min_nfft`` to
+    ``max_nfft``):
     CUDA-event ms per call (``time_ms``, median of three loops), device
     ms per call by kernel with the device kernels a call runs
     (``device_ms``), and the twin's ms for the call (one run, in chunks of
@@ -584,7 +604,7 @@ def k6(reps: int = 10, log=print, min_nfft: int = 0) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
-    for rows, n_samp, nfft in _shapes(K6_SHAPES, min_nfft):
+    for rows, n_samp, nfft in _shapes(K6_SHAPES, min_nfft, max_nfft):
         s1 = cf.fft_real_plain(torch.randn((1, n_samp), generator=gen,
                                            device=dev), nfft)[0].contiguous()
         seeds = torch.randint(-2 ** 31, 2 ** 31, (rows, 2), generator=gen,
@@ -959,25 +979,30 @@ def host_steps(spec: torch.Tensor, log=print, calls: int = HOST_CALLS):
     return res
 
 
-def recording(card: str) -> None:
+def recording(card: str, min_nfft: int = 0) -> None:
     """``chip_smoke.long_recording`` of this tree (the 4 x 24 s recording
     written, read back and localized with the noise null at nfft 2^21 and,
     under ``max_expected_delay=None``, 2^22, a warm call each, the device
     time by kernel), ``recording23`` (4 x 60 s at 44.1 kHz under
     ``max_expected_delay=None``: K4a, K6 and K1 at 2^23), ``recording25``
-    (4 x 200 s: K4a and K6 at 2^25, K1 on its passes) and
-    ``spectra_recordings`` (16 s on the full core at 2^20; 16, 30, 60 and
-    120 s on the fast path at 2^20 to 2^23), logged beside ``card``.  A tree
-    whose K1, K2, K4a or K6 still runs its radix-2 passes there logs them
-    (``hold_split=False``, ``hold_spectra=False``).  To A/B a tree whose
-    ``chip_smoke.py`` lacks a step, run this file and ``chip_smoke.py``
-    from the newer tree in a copy of the older one."""
+    (4 x 200 s: K4a, K6 and K1 at 2^25), ``recording27`` (4 x 800 s: K4a
+    and K6 at 2^27, K1 on its passes) and ``spectra_recordings`` (16 s on
+    the full core at 2^20; 16, 30, 60 and 120 s on the fast path at 2^20
+    to 2^23), those whose nfft reaches ``min_nfft``, logged beside
+    ``card``.  A tree whose K1, K2, K4a or K6 still runs its radix-2
+    passes there logs them (``hold_split=False``, ``hold_spectra=False``).
+    To A/B a tree whose ``chip_smoke.py`` lacks a step, run this file and
+    ``chip_smoke.py`` from the newer tree in a copy of the older one."""
     smoke = _smoke()
     smoke.CARD[0] = card
-    smoke.long_recording(cf, torch, {}, hold_split=False)
-    smoke.recording23(cf, torch, {}, hold_split=False)
-    smoke.recording25(cf, torch, {}, hold_split=False)
-    smoke.spectra_recordings(cf, torch, {}, hold_spectra=False)
+    for nfft, step in ((1 << 22, smoke.long_recording),
+                       (1 << 23, smoke.recording23),
+                       (1 << 25, smoke.recording25),
+                       (1 << 27, smoke.recording27)):
+        if nfft >= min_nfft:
+            step(cf, torch, {}, hold_split=False)
+    if min_nfft <= 1 << 23:
+        smoke.spectra_recordings(cf, torch, {}, hold_spectra=False)
 
 
 def simulations(card: str) -> None:
@@ -1036,8 +1061,11 @@ def main() -> int:
                     help="only count the device-time traces that miss a "
                          "kernel, with and without their idle edges")
     ap.add_argument("--min-nfft", type=int, default=0,
-                    help="with --gcc --long or --scene --long, only the "
-                         "shapes from this many points on")
+                    help="with --long or --recording, only the shapes "
+                         "and recordings from this many points on")
+    ap.add_argument("--max-nfft", type=int, default=0,
+                    help="with --long (K4a, K4b and K6), only the shapes "
+                         "up to this many points")
     ap.add_argument("--k10", action="store_true",
                     help="time only K10a, K10b and K10c, the full forward "
                          "and the chain at the TPU tool's shapes, with "
@@ -1071,13 +1099,15 @@ def main() -> int:
             if args.scene:
                 simulations(smi)
         elif args.long:
+            lo = max(LONG_MIN, args.min_nfft)
             ptxas_report(SPLIT_KERNELS + SPECTRA_KERNELS, log)
-            k4a(4 * args.reps, log, LONG_MIN)
-            boot(2 * args.reps, log, LONG_MIN)
-            k6(2 * args.reps, log, LONG_MIN)
-            gcc(args.reps, log, LONG_MIN)
+            k4a(4 * args.reps, log, lo, args.max_nfft)
+            boot(2 * args.reps, log, lo, args.max_nfft)
+            k6(2 * args.reps, log, lo, args.max_nfft)
+            if lo <= cf.FFT_SPLIT_MAX:
+                gcc(args.reps, log, lo)
         if args.recording:
-            recording(smi)
+            recording(smi, args.min_nfft)
         return 0
     if args.boot:
         boot(2 * args.reps, log)
