@@ -57,12 +57,14 @@ in twelve phases:
    over the card) and 64 scenes x 4 mics at 2^20 (5: one
    ``render_finalize``), and K5 at the fast path's seven (12, bit-equal
    to K3 then K2); and K9 at one pair of each length to 2^26, 2; past
-   the split, on the radix-2 passes at 2^27, K9's pair (29), K1 at 4 mics
-   x 67,000,000 (57) and K2, K3 and K5 at the fast path's 4 mics x
-   96,000,000 (56, 57, 112); each above 2^20 (K1 from 2^20) held to its
-   float32 twin within the limit plus the twin's own distance from its
-   float64 run, measured in the same run, and up to 2^26 held to
-   no kernel of the radix-2 passes (``SPECTRA_PASS_KERNELS``);
+   the split, on the three-pass split, K9's pair at 2^27, 2^28 and 2^30
+   (3) and K1 at 4 mics x 67,000,000 and x 134,000,000 (2^27, 2^28: 6),
+   and on the radix-2 passes at 2^27 K2, K3 and K5 at the fast path's 4
+   mics x 96,000,000 (56, 57, 112); each above 2^20 (K1 from 2^20) held
+   to its float32 twin within the limit plus the twin's own distance
+   from its float64 run, measured in the same run, and up to 2^26 (K9
+   and K1 to 2^30) held to no kernel of the radix-2 passes
+   (``SPECTRA_PASS_KERNELS``);
    phase 11's shapes: K1 over segments x subframes, K3 over the moving
    render's 132 frames, K7 at 6 x 4,097 and 28 x 2,049 bins; phase 12's:
    K1 over array calibration's 8 x 4 and 12 x 6 events of 4,800 samples
@@ -172,9 +174,9 @@ in twelve phases:
    launches a radix-2 pass of K1; a 4 x 60 s recording at 44.1 kHz under
    ``max_expected_delay=None`` (nfft 2^23: K4a, K6 and K1 on their split
    past 2^22) the same way, with no radix-2 pass of K4a, K6 or K1, and
-   4 x 200 s and 4 x 800 s ones (nfft 2^25 and 2^27: K4a and K6 on the
-   split and on the three-pass split, K1 on its split and at 2^27 on its
-   passes, logged) with no pass kernel of K4a or K6; 4-mic
+   4 x 200 s and 4 x 800 s ones (nfft 2^25 and 2^27: K4a, K6 and K1 on
+   the split and on the three-pass split) with no pass kernel of K4a, K6
+   or K1; 4-mic
    recordings at 44.1 kHz (no resampling) of 16 s on the full core (K1
    at 2^20) and of 16, 30, 60 and 120 s on the fast path (K2 at 2^20 to
    2^23), the GCC through the mic rows' spectra, each the same way, none
@@ -350,12 +352,12 @@ ADDED = {("delay_sum", "odd"): 1, ("gcc_windowed", "odd"): 1,
          ("scene_windowed", "fast23"): 13, ("scene_windowed", "fast24"): 13,
          ("fft_real", "split26"): 14, ("bootstrap_peaks", "split26"): 14,
          ("noise_bootstrap_peaks", "split26"): 14,
-         ("whitened_corr", "split26"): 15, ("whitened_corr", "passes27"): 15,
+         ("whitened_corr", "split26"): 15, ("whitened_corr", "long27"): 15,
          ("gcc_all_pairs", "split25"): 15, ("gcc_all_pairs", "split25_8"): 15,
          ("gcc_all_pairs", "split26"): 15, ("gcc_windowed", "fast25"): 15,
          ("gcc_windowed", "fast26"): 15, ("delay_sum", "fast25"): 15,
          ("delay_sum", "fast26"): 15, ("scene_windowed", "fast25"): 15,
-         ("scene_windowed", "fast26"): 15, ("gcc_all_pairs", "passes27"): 16,
+         ("scene_windowed", "fast26"): 15, ("gcc_all_pairs", "long27"): 16,
          ("gcc_windowed", "passes27"): 16, ("delay_sum", "passes27"): 16,
          ("scene_windowed", "passes27"): 16, ("fft_real", "long27"): 14,
          ("bootstrap_peaks", "long27"): 14,
@@ -363,7 +365,9 @@ ADDED = {("delay_sum", "odd"): 1, ("gcc_windowed", "odd"): 1,
          ("fft_real", "long30"): 17, ("bootstrap_peaks", "long28"): 17,
          ("bootstrap_peaks", "long30"): 17,
          ("noise_bootstrap_peaks", "long28"): 17,
-         ("noise_bootstrap_peaks", "long30"): 17}
+         ("noise_bootstrap_peaks", "long30"): 17,
+         ("whitened_corr", "long28"): 18, ("whitened_corr", "long30"): 18,
+         ("gcc_all_pairs", "long28"): 18}
 # The sweep across K2's, K3's and K5's scene-chunk boundary: one scene past
 # the 65,535 grid rows of one launch at 4 mics (3 couples), at nfft 512.
 CHUNK_SCENES = 21846
@@ -377,13 +381,13 @@ LONG_DRAWS = 64
 # ``max_expected_delay=None``), past 2^24 (every transforming kernel's
 # split of 4,096 x 8,192, 4 columns and 2 rows, and 8,192 x 8,192, 2 and
 # 2, the n2-point table read from device memory: a 190 s and a 375 s
-# recording) and past 2^26 (K4a's, K4b's and K6's three-pass split: a
-# 1,520 s, a 3,039 s and a 9,070 s recording, 3 device kernels a call of
-# K4a, 5 of K4b and K6, ``LONG_KERNELS``; the spectra routes' radix-2
-# passes at 2^27); K6's draws at 2^24 that take two launches under the
-# byte cap.  The 2^27 cases of K4a, K4b and K6 draw from the stream and
-# take the shapes that their radix-2 passes' cases did, so every later
-# case of that stream keeps its inputs.
+# recording) and past 2^26 (the three-pass split of K4a, K4b, K6, K9 and
+# K1: a 1,520 s, a 3,039 s and a 9,070 s recording, 3 device kernels a
+# call of K4a and K9, 5 of K4b and K6, 6 of K1, ``LONG_KERNELS``; the
+# radix-2 passes of K2, K3 and K5 at 2^27); K6's draws at 2^24 that take
+# two launches under the byte cap.  The 2^27 cases of K4a, K4b, K6, K9
+# and K1 draw from the stream and take the shapes that their radix-2
+# passes' cases did, so every later case of that stream keeps its inputs.
 LONG22 = (2000000, 1 << 22)
 SPLIT23 = (4200000, 1 << 23)
 SPLIT24 = (8400000, 1 << 24)
@@ -393,7 +397,8 @@ PASSES27 = (67000000, 1 << 27)
 LONG28 = (134000000, 1 << 28)
 LONG30 = (400000000, 1 << 30)
 LONG_KERNELS = {"fft_real": 3, "bootstrap_peaks": 5,
-                "noise_bootstrap_peaks": 5}
+                "noise_bootstrap_peaks": 5, "whitened_corr": 3,
+                "gcc_all_pairs": 6}
 DRAWS24 = 300
 # Phase 3's cases of the spectra routes: one scene's samples at the fast
 # path's (and the full core's) 2^20 to 2^26 under DEFAULT_CONFIG (18.1,
@@ -402,20 +407,20 @@ DRAWS24 = 300
 FAST_SAMPLES = {1 << 20: 800000, 1 << 21: 1500000, 1 << 22: 3000000,
                 1 << 23: 6000000, 1 << 24: 12000000, 1 << 25: 24000000,
                 1 << 26: 48000000, 1 << 27: 96000000}
-# Device kernels of the spectra routes' radix-2 passes (K9's, K1's,
-# K2's, K3's and K5's at n1 = 0): none may run on their split, to 2^26.
+# Device kernels of the spectra routes' radix-2 passes (K2's, K3's and
+# K5's at n1 = 0; K9's and K1's, ``corr_cross`` and ``split_pairs``,
+# until the three-pass split took their place above 2^26: a parent tree's
+# trace still names them): none may run on their split, to 2^26, nor in
+# K9 or K1 to 2^30.
 SPECTRA_PASS_KERNELS = ("pack_rows", "stockham_pass", "gcc_cross",
                         "split_pairs", "last_pass_window", "render_mix",
                         "corr_cross")
-# Device kernels a call runs at 2^27 on the radix-2 passes (one row pair
-# or 4-mic scene; 27 passes a transform, 26 where the last is fused): K9
-# the cross spectrum, 27 inverse passes, the split into the pairs; K1 the
-# packing, 27 forward passes, the cross spectra, 27 inverse ones and the
-# split; K2 as K1 up to 26 inverse passes and the last with the window;
-# K3 the packing, 27 passes, the mix, 27 passes, the finalize; K5 K3's 57
-# and K2's 55 after its packing.
-PASSES27_KERNELS = {"whitened_corr": 29, "gcc_all_pairs": 57,
-                    "gcc_windowed": 56, "delay_sum": 57,
+# Device kernels a call runs at 2^27 on the radix-2 passes (one 4-mic
+# scene; 27 passes a transform, 26 where the last is fused): K2 the
+# packing, 27 forward passes, the cross spectra, 26 inverse passes and
+# the last with the window; K3 the packing, 27 passes, the mix, 27
+# passes, the finalize; K5 K3's 57 and K2's 55 after its packing.
+PASSES27_KERNELS = {"gcc_windowed": 56, "delay_sum": 57,
                     "scene_windowed": 112}
 # The card's name and power limit (nvidia-smi), set by main().
 CARD = ["not read"]
@@ -619,11 +624,13 @@ def kernel_phase(cf, torch):
     device_ms = bench.device_ms
     twin_rows = bench.twin_rows
 
-    def log_device(name, fn, calls=5, kernels=None, nfft=None):
+    def log_device(name, fn, calls=5, kernels=None, nfft=None,
+                   long=False):
         """Logs the device time and kernels per call (``torch.profiler``);
         raises unless a call runs ``kernels`` device kernels, where
         given, and, given the nfft of a spectra route's call on its split
-        (up to ``FFT_SPLIT_MAX``), where one of them is a kernel of its
+        (up to ``FFT_SPLIT_MAX``; with ``long``, K9's and K1's on the
+        three-pass split above), where one of them is a kernel of its
         radix-2 passes (``SPECTRA_PASS_KERNELS``)."""
         dev_k = traced(bench, fn, calls, kernels)
         log(f"{name} device time per call: {dev_k['total']:.4f} ms in "
@@ -631,7 +638,7 @@ def kernel_phase(cf, torch):
         if kernels is not None and dev_k["kernels"] != kernels:
             raise AssertionError(f"{name}: {dev_k['kernels']:g} device "
                                  f"kernels a call, want {kernels}")
-        if nfft is not None and nfft <= cf.FFT_SPLIT_MAX:
+        if nfft is not None and (long or nfft <= cf.FFT_SPLIT_MAX):
             passes = [k for k in dev_k
                       if any(p in k for p in SPECTRA_PASS_KERNELS)]
             if passes:
@@ -646,6 +653,30 @@ def kernel_phase(cf, torch):
         wide = [x.to(torch.complex128 if x.is_complex() else torch.float64)
                 for x in inputs]
         gap = float((plain(*inputs).double() - plain(*wide)).abs().max())
+        log(f"{name}: max |float32 twin - float64 twin| = {gap:.3e}")
+        return gap
+
+    def corr_twin_gap(name, a, b, mask, nfft):
+        """``twin_gap`` of K9's twin (``whitened_corr_plain``) where its
+        float64 run beside both inputs' float64 copies would not fit the
+        card (one pair at 2^30: ~80 GB): the same operations in float64 in
+        place (the cross spectrum, |r| + eps, the division, the band, the
+        real DC and Nyquist, ``irfft``), then the difference a row at a
+        time."""
+        want = cf.whitened_corr_plain(a, b, mask, nfft)
+        r = a.to(torch.complex128)
+        r *= b.to(torch.complex128).conj()
+        mag = torch.sqrt(r.real * r.real + r.imag * r.imag) + cf.PHAT_EPS
+        m = mask.double()
+        r.real.div_(mag).mul_(m)
+        r.imag.div_(mag).mul_(m)
+        del mag, m
+        r.imag[..., 0] = 0.0
+        r.imag[..., nfft // 2] = 0.0
+        wide = torch.fft.irfft(r, n=nfft)
+        del r
+        gap = max(float((want[i].double() - wide[i]).abs().max())
+                  for i in range(want.shape[0]))
         log(f"{name}: max |float32 twin - float64 twin| = {gap:.3e}")
         return gap
 
@@ -845,8 +876,11 @@ def kernel_phase(cf, torch):
     # mics at 2^25 (4,096 x 8,192: 4 columns, 2 rows) and a 375 s
     # recording's 4 at 2^26 (8,192 x 8,192: 2 and 2), the n2-point table
     # read from device memory; past the split a 1,519 s recording's 4 at
-    # 2^27 on the radix-2 passes.  Through them in one block (2 device
-    # kernels): 128 scenes of 16 mics at 4,096.
+    # 2^27 and a 3,039 s one's at 2^28 on the three-pass split (6 device
+    # kernels a call: K4a's three into the spectra, ``corr_rows_long``, B'
+    # and ``long_cols_corr``; at 2^28 the float64 twin pair by pair, whole
+    # it would pass the card's 80 GB).  Through them in one block (2
+    # device kernels): 128 scenes of 16 mics at 4,096.
     for tag, (b, m, length, nfft, band) in {
             "api": (None, 4, N, NFFT, (300.0, 3400.0)),
             "no_gate": (None, 4, N, 2 * NFFT, None),
@@ -871,7 +905,8 @@ def kernel_phase(cf, torch):
             "split25": (None, 4) + SPLIT25 + (None,),
             "split25_8": (None, 8) + SPLIT25 + ((300.0, 3400.0),),
             "split26": (None, 4) + SPLIT26 + (None,),
-            "passes27": (None, 4) + PASSES27 + (None,)}.items():
+            "long27": (None, 4) + PASSES27 + (None,),
+            "long28": (None, 4) + LONG28 + (None,)}.items():
         draw("gcc_all_pairs", tag)
         pi, pj = pairs(m)
         sig = (randn(m, length) if b is None
@@ -880,23 +915,32 @@ def kernel_phase(cf, torch):
         scenes = b or 1
         nbytes = 4 * (scenes * (m * length + len(pi) * nfft) + nfft // 2 + 1)
         tol = 1e-6
-        if nfft >= cf.STAGE_SPLIT_MAX:
+        if nfft > PASSES27[1]:
+            tol += max(twin_gap(f"gcc_all_pairs[{tag}] pair {p}",
+                                lambda x, w, p=p: cf.gcc_all_pairs_plain(
+                                    x, pi[p:p + 1], pj[p:p + 1], nfft, w),
+                                sig, mask) for p in range(len(pi)))
+        elif nfft >= cf.STAGE_SPLIT_MAX:
             tol += twin_gap(f"gcc_all_pairs[{tag}]", lambda x, w: (
                 cf.gcc_all_pairs_plain(x, pi, pj, nfft, w)), sig, mask)
         res = compare(
             f"gcc_all_pairs[{tag}] B={b} M={m} P={len(pi)} nfft={nfft}",
             lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
             lambda: cf.gcc_all_pairs_plain(sig, pi, pj, nfft, mask),
-            tol=tol, reps=20 if scenes == 1 and tag != "passes27" else 3,
+            tol=tol,
+            reps=20 if scenes == 1 and nfft <= cf.FFT_SPLIT_MAX else 3,
             least=bound(nbytes, gcc_ops(scenes, m, len(pi), nfft)))
-        log_device(f"gcc_all_pairs[{tag}] ({route_note(cf, nfft, m)})",
+        log_device(f"gcc_all_pairs[{tag}] "
+                   f"({route_note(cf, nfft, m, k1=True)})",
                    lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
-                   kernels=PASSES27_KERNELS["gcc_all_pairs"]
-                   if tag == "passes27" else gcc_kernels(cf, nfft, m),
-                   nfft=nfft)
+                   kernels=gcc_kernels(cf, nfft, m, k1=True), nfft=nfft,
+                   long=True)
         if tag == "main":
             results["gcc_all_pairs"] = res
         del sig
+    # The cases above 2^26 leave the twin's tens of GB in the allocator's
+    # cache: give them back.
+    torch.cuda.empty_cache()
 
     # K2: windowed GCC.  Main: the sweep's (512 scenes, wq 6); also the
     # api fast path's single scene (wq 21), an odd edge shape, the short
@@ -1163,8 +1207,10 @@ def kernel_phase(cf, torch):
     # columns, 4 rows), 8,400,000 at 2^24 (4 and 4), 16,800,000 at 2^25
     # (4 and 2) and 33,000,000 at 2^26 (2 and 2; the row pass reads the
     # n2-point table from device memory there), 2 device kernels a call;
-    # of 67,000,000 at 2^27 on the radix-2 passes (past ``FFT_SPLIT_MAX``,
-    # as every transforming kernel).
+    # of 67,000,000, 134,000,000 and 400,000,000 at 2^27, 2^28 and 2^30 on
+    # the three-pass split (past ``FFT_SPLIT_MAX``, as K4a's, K4b's and
+    # K6's; 3 device kernels a call: ``corr_rows_long``, B' and
+    # ``long_cols_corr``; from 2^28 the float64 twin in place).
     for tag, (rows_n, length, nfft) in {"main": (1, N, NFFT),
                                         "edge": (3, 3000, 4096),
                                         "no_gate": (1, N, 2 * NFFT),
@@ -1174,14 +1220,19 @@ def kernel_phase(cf, torch):
                                         "split24": (1,) + SPLIT24,
                                         "split25": (1,) + SPLIT25,
                                         "split26": (1,) + SPLIT26,
-                                        "passes27": (1,) + PASSES27}.items():
+                                        "long27": (1,) + PASSES27,
+                                        "long28": (1,) + LONG28,
+                                        "long30": (1,) + LONG30}.items():
         draw("whitened_corr", tag)
         spec = cf.fft_real_plain(randn(2 * rows_n, length), nfft)
         a, b = spec[:rows_n].contiguous(), spec[rows_n:].contiguous()
+        del spec
         mask = cf.band_mask(nfft, None, None, device=dev)
         bins = nfft // 2 + 1
         tol = 1e-6
-        if nfft > cf.STAGE_SPLIT_MAX:
+        if nfft > PASSES27[1]:
+            tol += corr_twin_gap(f"whitened_corr[{tag}]", a, b, mask, nfft)
+        elif nfft > cf.STAGE_SPLIT_MAX:
             tol += twin_gap(f"whitened_corr[{tag}]", lambda x, y, w: (
                 cf.whitened_corr_plain(x, y, w, nfft)), a, b, mask)
         res = compare(
@@ -1194,10 +1245,15 @@ def kernel_phase(cf, torch):
         n1 = cf.corr_schedule(nfft)
         log_device(f"whitened_corr[{tag}] (schedule n1={n1})",
                    lambda: cf.whitened_corr(a, b, mask, nfft),
-                   kernels={1: 1, 0: PASSES27_KERNELS["whitened_corr"]}.get(
-                       n1, 2), nfft=nfft)
+                   kernels=1 if n1 == 1 else LONG_KERNELS["whitened_corr"]
+                   if nfft > cf.FFT_SPLIT_MAX else 2, nfft=nfft, long=True)
         if tag == "main":
             results["whitened_corr"] = res
+        del a, b
+    # The tables of 2^28 and 2^30 (1 and 4 GiB) and the cases' buffers:
+    # give them back before K5's cases.
+    cf._twiddles.cache_clear()
+    torch.cuda.empty_cache()
 
     # K5: the whole scene.  Main: the sweep's 512 scenes; the api's scene
     # (22 paths, wq 21) and an odd mic count on the split; edge: out ==
@@ -1319,21 +1375,34 @@ def table_note(cf, nfft, device):
         f"cache in {time.perf_counter() - start:.3f} s wall {card_note()}")
 
 
-def gcc_kernels(cf, nfft, mics):
-    """Device kernels a call of K1 or K2 runs at nfft with ``mics`` mics a
-    scene, by its route (``cuda_fft.gcc_route``): 1 in one block a scene,
-    3 on ``gcc_rows`` (K4a's column pass, the row pass, the column pass),
-    4 through the mic rows' spectra on the split (K4a's two passes, K9's
-    row pass, the column pass), 2 through them in one block (K4a's
-    ``fft_real_block``, ``corr_block``); None on the passes."""
-    kind = cf.gcc_route(nfft, mics).kind
+def _gcc_route(cf, nfft, mics, k1):
+    """K1's route (``cuda_fft.gcc_all_route``) where ``k1`` and the tree
+    has it, else K2's (``gcc_route``)."""
+    if k1 and hasattr(cf, "gcc_all_route"):
+        return cf.gcc_all_route(nfft, mics)
+    return cf.gcc_route(nfft, mics)
+
+
+def gcc_kernels(cf, nfft, mics, k1=False):
+    """Device kernels a call of K2 (K1 where ``k1``) runs at nfft with
+    ``mics`` mics a scene, by its route (``cuda_fft.gcc_route``; K1's
+    ``gcc_all_route``): 1 in one block a scene, 3 on ``gcc_rows`` (K4a's
+    column pass, the row pass, the column pass), 4 through the mic rows'
+    spectra on the split (K4a's two passes, K9's row pass, the column
+    pass), 2 through them in one block (K4a's ``fft_real_block``,
+    ``corr_block``), 6 on K1's three-pass split (``LONG_KERNELS``); None
+    on the passes."""
+    kind = _gcc_route(cf, nfft, mics, k1).kind
     return {cf.ROUTE_BLOCK: 1, cf.ROUTE_ROWS: 3, cf.ROUTE_SPECTRA: 4,
-            cf.ROUTE_SPECTRA_BLOCK: 2}.get(kind)
+            cf.ROUTE_SPECTRA_BLOCK: 2,
+            getattr(cf, "ROUTE_LONG", -1): LONG_KERNELS["gcc_all_pairs"]
+            }.get(kind)
 
 
-def route_note(cf, nfft, mics):
-    """'route <name>, n1=<n1>' of K1's and K2's GCC at nfft and ``mics``."""
-    route = cf.gcc_route(nfft, mics)
+def route_note(cf, nfft, mics, k1=False):
+    """'route <name>, n1=<n1>' of K2's GCC (K1's where ``k1``) at nfft and
+    ``mics``."""
+    route = _gcc_route(cf, nfft, mics, k1)
     return f"route {cf.ROUTE_NAMES[route.kind]}, n1={route.n1}"
 
 
@@ -3221,8 +3290,14 @@ def recorded_api(cf, torch, golden, paths, launches):
 
 
 # Device kernels of K1's radix-2 passes (``palt_gcc_all_pairs`` at n1 =
-# 0): the packing, the passes, the cross-spectra and the split into pairs.
+# 0 until the three-pass split took their place above 2^26; a parent
+# tree's trace still names them): the packing, the passes, the
+# cross-spectra and the split into pairs.
 K1_PASS_KERNELS = ("pack_rows", "stockham_pass", "gcc_cross", "split_pairs")
+# Device kernels of K1's three-pass split (above 2^26) of its own: the
+# row pass and A' with the correlations (its B' is ``long_cols_b``, which
+# K4a and K6 run too).
+K1_LONG_KERNELS = ("corr_rows_long", "long_cols_corr")
 K2_PASS_KERNELS = ("pack_rows", "stockham_pass", "gcc_cross",
                    "last_pass_window")
 # Step 4's recordings at 44.1 kHz (no resampling): seconds, the path and
@@ -3438,8 +3513,8 @@ def recording25(cf, torch, launches, hold_split=True):
 
 # Step 3d's recording: 4 mics x 800 s at 44.1 kHz (no resampling; 35.28 M
 # samples a mic, ~565 MB of WAV files) with ``REC23_DELAYS``, whose GCC and
-# noise null transform at 2^27 under ``max_expected_delay=None``: K4a and
-# K6 on the three-pass split, K1 on its radix-2 passes.
+# noise null transform at 2^27 under ``max_expected_delay=None``: K4a, K6
+# and K1 on the three-pass split.
 REC27_SECONDS = 800
 
 
@@ -3448,15 +3523,16 @@ def recording27(cf, torch, launches, hold_split=True):
     whole-sample delays (``REC23_DELAYS``), written by the port's write_wav
     and read back without resampling, localized under
     ``max_expected_delay=None`` with the noise null at ``LONG_DRAWS`` draws
-    a pair (384 draws of 35,280,000 samples): nfft 2^27, K4a and K6 on the
-    three-pass split (``cuda_fft.long_plan``), K1 on its radix-2 passes.
-    Each TDOA within 0.5 samples of its injected delay; then a second,
-    warm call's wall time and one more call's device time by kernel
-    (``torch.profiler``), which holds no kernel of K4a's or K6's radix-2
-    passes (``K4A_K6_PASS_KERNELS``; K1's are logged; ``hold_split``
-    False only logs them, for an A/B against a tree that runs them).  The
-    files' directory is removed afterwards.  Returns the device time by
-    kernel."""
+    a pair (384 draws of 35,280,000 samples): nfft 2^27, K4a, K6 and K1
+    on the three-pass split (``cuda_fft.long_plan``; K1 through its mic
+    rows' spectra, ``K1_LONG_KERNELS`` after K4a's, logged).  Each TDOA
+    within 0.5 samples of its injected delay; then a second, warm call's
+    wall time and one more call's device time by kernel
+    (``torch.profiler``), which holds no kernel of K4a's, K6's or K1's
+    radix-2 passes (``K4A_K6_PASS_KERNELS``, ``K1_PASS_KERNELS``;
+    ``hold_split`` False only logs them, for an A/B against a tree that
+    runs them).  The files' directory is removed afterwards.  Returns the
+    device time by kernel."""
     import os
     import shutil
     from pyaudiolocalization_tpu_torch import api
@@ -3467,21 +3543,24 @@ def recording27(cf, torch, launches, hold_split=True):
         name = (f"the {REC27_SECONDS} s recording at 44.1 kHz (noise null, "
                 "max_expected_delay=None)")
         log(f"{name}: nfft {nfft}, K4a's and K6's schedule n1="
-            f"{cf._split_n1(nfft)}, K1's n1={cf.gcc_route(nfft, 4).n1}")
+            f"{cf._split_n1(nfft)}, K1's n1="
+            f"{_gcc_route(cf, nfft, 4, True).n1}")
         if nfft != PASSES27[1]:
             raise AssertionError(f"{name} misses nfft {PASSES27[1]}")
         dev = _localize_recording(cf, torch, launches, name, paths, None,
                                   _pair_delays(REC23_DELAYS), "files")
     finally:
         shutil.rmtree(os.path.dirname(paths[0]), ignore_errors=True)
-    passes = [k for k in dev if any(p in k for p in K4A_K6_PASS_KERNELS)]
+    passes = [k for k in dev if any(
+        p in k for p in K4A_K6_PASS_KERNELS + K1_PASS_KERNELS)]
     if passes and hold_split:
-        raise AssertionError(f"{name} ran K4a's or K6's radix-2 passes: "
-                             f"{passes}")
-    k1 = [k for k in dev if any(p in k for p in K1_PASS_KERNELS)]
-    log(f"{name}: K4a's and K6's radix-2 pass kernels in the trace: "
+        raise AssertionError(f"{name} ran K4a's, K6's or K1's radix-2 "
+                             f"passes: {passes}")
+    k1 = [k for k in dev if any(p in k for p in K1_LONG_KERNELS)]
+    log(f"{name}: K4a's, K6's and K1's radix-2 pass kernels in the trace: "
         f"{', '.join(f'{k} {dev[k]:.3f}' for k in passes) or 'none'}; "
-        f"K1's: {', '.join(f'{k} {dev[k]:.3f}' for k in k1) or 'none'}")
+        f"K1's own three-pass kernels: "
+        f"{', '.join(f'{k} {dev[k]:.3f}' for k in k1) or 'none'}")
     return dev
 
 

@@ -38,16 +38,19 @@ constexpr int kRowThreads = 1024;
 // The GCC routes of K1, K2 and K5 (``cuda_fft.gcc_route`` picks one for
 // (nfft, mics), the same for the three): the radix-2 passes (above 2^26),
 // one block a scene, the split with `gcc_rows`, the split through the mic
-// rows' spectra, and one block a packed cross row through the spectra.
-// K3's render stage, K5's too, takes the first four (``cuda_fft.
-// render_route``): the passes, `render_block`, the split with
-// `render_rows`, the split through the base rows' spectra.
+// rows' spectra, and one block a packed cross row through the spectra;
+// above 2^26 K1 alone takes the three-pass split through the spectra
+// (``cuda_fft.gcc_all_route``), K2 and K5 the passes.  K3's render stage,
+// K5's too, takes the first four (``cuda_fft.render_route``): the passes,
+// `render_block`, the split with `render_rows`, the split through the
+// base rows' spectra.
 enum GccRoute {
   kRoutePasses = 0,
   kRouteBlock = 1,
   kRouteRows = 2,
   kRouteSpectra = 3,
-  kRouteSpectraBlock = 4
+  kRouteSpectraBlock = 4,
+  kRouteLong = 5
 };
 
 // Spectrum bin k of the real row packed as the real part (odd = 0) or the
@@ -735,29 +738,6 @@ __global__ void gcc_cross(const float2* __restrict__ spec,
   }
 }
 
-// Packed inverse rows -> (scenes, num_pairs, n) correlations scaled by 1/n.
-// Packed row blockIdx.y = scene * couples + c holds pairs 2c and 2c+1 of
-// that scene; with an odd num_pairs the second slot of each scene's last
-// couple is empty and nothing is written for it.
-__global__ void split_pairs(const float2* __restrict__ z, int num_pairs,
-                            int couples, int n, float scale,
-                            float* __restrict__ out) {
-  const int row_c = blockIdx.y;
-  const int scene = row_c / couples;
-  const int c = row_c - scene * couples;
-  const int p0 = 2 * c;
-  const int p1 = 2 * c + 1;
-  const float2* row = z + (size_t)row_c * (size_t)n;
-  float* o0 = out + ((size_t)scene * num_pairs + p0) * (size_t)n;
-  float* o1 = o0 + n;
-  for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < n;
-       t += gridDim.x * blockDim.x) {
-    const float2 v = row[t];
-    o0[t] = v.x * scale;
-    if (p1 < num_pairs) o1[t] = v.y * scale;
-  }
-}
-
 // K2's epilogue: the last inverse pass fused with the 1/n scale, the write
 // of lags [-w, w) (window sample s holds lag s - w: natural indices n-w..n-1
 // then 0..w-1) and three statistics over the whole correlation: mean |corr|,
@@ -1047,6 +1027,22 @@ __device__ __forceinline__ void store_rows(const float2* buf, float2* yc,
   }
 }
 
+// yc rows pair_row(b, r) <- the strip's rows as they stand, without
+// `store_rows`' twiddle: the row passes of the three-pass split
+// (`boot_rows_long`, `corr_rows_long`), whose twiddle pass B' takes; ld as
+// `load_rows`.
+template <int S>
+__device__ __forceinline__ void store_rows_long(const float2* buf, float2* yc,
+                                                int b, int n1, int n2,
+                                                int ld) {
+  const int shift = __ffs(n2) - 1;
+  for (int idx = threadIdx.x; idx < S * n2; idx += blockDim.x) {
+    const int r = idx >> shift;
+    const int j2 = idx & (n2 - 1);
+    yc[(size_t)pair_row(b, r, n1, S / 2) * n2 + j2] = buf[r * ld + j2];
+  }
+}
+
 // The column strip c0..c0 + S - 1 of yc (n1 x n2) and its inverse
 // n1-point DFTs: buf[j1 * S + s] = sample n2*j1 + c0 + s of the packed
 // inverse, unscaled (pass 1 mirrored; stw: the n1-point sub-twiddles).
@@ -1238,7 +1234,7 @@ cudaError_t boot_split(const float2* s1, Load load, int rows, int n, int n1,
   });
 }
 
-// ---- K4a, K4b and K6 above 2^26: the three-pass split --------------------
+// ---- K4a, K4b, K6, K9 and K1 above 2^26: the three-pass split -----------
 //
 // Above 2^26, to 2^30 (``cuda_fft.FFT_LONG_MAX``), n = n1 * n2 keeps the
 // row side of 2^26, n2 = 8,192: a row pass holds row k1 and its partner n1
@@ -1263,11 +1259,15 @@ cudaError_t boot_split(const float2* s1, Load load, int rows, int n, int n1,
 // B' (`long_cols_b` inverse: times W_n^{-j2 k1}, the inverse n1b-point
 // DFTs, back to rows k1a + n1a j1b) and A' (`long_cols_max`: times
 // W_n1^{-j1b k1a}, the inverse n1a-point DFTs and the maxima, as
-// `boot_cols`).  The sub-twiddles come from the n1a- and n1b-point half
-// tables after the n-, n1- and n2-point ones (``cuda_fft._twiddles``);
-// W_n1^e from the n1-point half table and W_n^e as W_n2^{e / n1} W_n^{e mod
-// n1}, `split_twiddle`'s product, both through the read-only path (n1
-// points do not fit beside a strip in shared memory).  Bound: device
+// `boot_cols`).  K9 and K1's back half run `corr_rows_long` (`corr_rows`
+// without the conjugate twiddle) over natural-order spectra, then B' and
+// A' with the correlations (`long_cols_corr`, as `corr_cols`); K1 first
+// writes its mic rows' spectra by K4a's three.  The sub-twiddles come
+// from the n1a- and n1b-point half tables after the n-, n1- and n2-point
+// ones (``cuda_fft._twiddles``); W_n1^e from the n1-point half table and
+// W_n^e as W_n2^{e / n1} W_n^{e mod n1}, `split_twiddle`'s product, both
+// through the read-only path (n1 points do not fit beside a strip in
+// shared memory).  Bound: device
 // memory, 16 bytes a point of the packed rows a pass.
 
 // The half tables of the three-pass split at n = n1a * n1b * n2 after the
@@ -1386,27 +1386,19 @@ long_cols_b(int n1a, int n1b, int n2, const float2* __restrict__ tw,
   }
 }
 
-// Pass A' with the maxima, `boot_cols` of the three-pass split.  Grid as
-// pass A's: rows k1a + n1a j1b of the strip times W_n1^{-j1b k1a}, the
-// inverse n1a-point DFTs (samples n2 (n1b j1a + j1b) + j2 of the packed
-// inverse), the block's maxima of their real and imaginary parts, times
-// 1/n, into out[2c] and out[2c + 1] (`atomic_max_float`).
+// Pass A' up to its epilogue (`long_cols_max`, `long_cols_corr`): block
+// (j1b, strip c0) of pass A's grid stages the n1a-point sub-twiddles in
+// stw, takes rows k1a + n1a j1b of its strip of the packed row yc times
+// W_n1^{-j1b k1a} and runs the inverse n1a-point DFTs in buf: buf[j1a * S
+// + s] = sample n2 (n1b j1a + j1b) + c0 + s of the packed inverse,
+// unscaled.
 template <int S>
-__global__ void __launch_bounds__(1024)
-long_cols_max(const float2* __restrict__ y, int rows, int n1a, int n1b,
-              int n2, const float2* __restrict__ tw, float* out) {
+__device__ __forceinline__ void long_cols_a_inverse(
+    const float2* __restrict__ yc, const LongTables& t, int n1a, int n1b,
+    int n2, int j1b, int c0, float2* stw, float2* buf) {
   using palt::kElems;
-  float2* stw = palt::fft_shared();
-  float2* buf = stw + (n1a >> 1);
-  float* red = reinterpret_cast<float*>(buf + n1a * S);
-  const int c = blockIdx.y;
-  const int strips = n2 / S;
-  const int j1b = blockIdx.x / strips;
-  const int c0 = (blockIdx.x - j1b * strips) * S;
-  const LongTables t = long_tables(tw, n1a, n1b, n2);
   palt::stage_twiddles(stw, t.a, n1a, 1);
   const HiTable w1{t.n1, (n1a * n1b) >> 1};
-  const float2* yc = y + (size_t)c * n1a * n1b * n2;
   const int total = n1a * S;
   float2 v[kElems];
 #pragma unroll
@@ -1426,6 +1418,27 @@ long_cols_max(const float2* __restrict__ y, int rows, int n1a, int n1b,
     }
   }
   palt::block_fft<S>(buf, S, 1, n1a, stw, -1.0f);
+}
+
+// Pass A' with the maxima, `boot_cols` of the three-pass split.  Grid as
+// pass A's: `long_cols_a_inverse`, then the block's maxima of the
+// samples' real and imaginary parts, times 1/n, into out[2c] and out[2c +
+// 1] (`atomic_max_float`).
+template <int S>
+__global__ void __launch_bounds__(1024)
+long_cols_max(const float2* __restrict__ y, int rows, int n1a, int n1b,
+              int n2, const float2* __restrict__ tw, float* out) {
+  float2* stw = palt::fft_shared();
+  float2* buf = stw + (n1a >> 1);
+  float* red = reinterpret_cast<float*>(buf + n1a * S);
+  const int c = blockIdx.y;
+  const int strips = n2 / S;
+  const int j1b = blockIdx.x / strips;
+  const int c0 = (blockIdx.x - j1b * strips) * S;
+  const LongTables t = long_tables(tw, n1a, n1b, n2);
+  long_cols_a_inverse<S>(y + (size_t)c * n1a * n1b * n2, t, n1a, n1b, n2,
+                         j1b, c0, stw, buf);
+  const int total = n1a * S;
   float mre = -INFINITY;
   float mim = -INFINITY;
   for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
@@ -1474,12 +1487,7 @@ boot_rows_long(const float2* __restrict__ s1, int rows, int n1, int n2,
   }
   palt::block_fft_inline<S, palt::Radix16<S, E>, E>(buf, 1, ld, n2, stw,
                                                     -1.0f);
-  const int shift = __ffs(n2) - 1;
-  for (int idx = threadIdx.x; idx < S * n2; idx += blockDim.x) {
-    const int r = idx >> shift;
-    const int j2 = idx & (n2 - 1);
-    yc[(size_t)pair_row(b, r, n1, S / 2) * n2 + j2] = buf[r * ld + j2];
-  }
+  store_rows_long<S>(buf, yc, b, n1, n2, ld);
 }
 
 // Pass B (forward) or B' over `packed` rows of buf.
@@ -1589,37 +1597,6 @@ __global__ void whiten_bins(const float2* in, long long count, int head,
   if (t0 == 0) {
     if (head) out[0] = phat_bin(in[0], eps);
     if (head + 2 * pairs < count) out[count - 1] = phat_bin(in[count - 1], eps);
-  }
-}
-
-// ---- K9: whitened correlation of two spectra -----------------------------
-
-// Packed row c holds rows 2c and 2c+1 of whiten(a * conj(b)) * band over
-// bins 0..n/2 of natural-order half spectra (n/2 + 1 bins a row), mirrored
-// into the packed Hermitian row by store_packed.
-__global__ void corr_cross(const float2* __restrict__ a,
-                           const float2* __restrict__ b, int rows,
-                           const float* __restrict__ band, float eps, int n,
-                           float2* __restrict__ z) {
-  const int c = blockIdx.y;
-  const int r0 = 2 * c;
-  const int r1 = 2 * c + 1;
-  const int half = n >> 1;
-  const size_t bins = (size_t)half + 1;
-  float2* row = z + (size_t)c * (size_t)n;
-  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k <= half;
-       k += gridDim.x * blockDim.x) {
-    const float bk = band[k];
-    const size_t i0 = (size_t)r0 * bins + k;
-    float2 w0 = whiten(a[i0], b[i0], eps);
-    w0 = make_float2(w0.x * bk, w0.y * bk);
-    float2 w1 = make_float2(0.0f, 0.0f);
-    if (r1 < rows) {
-      const size_t i1 = i0 + bins;
-      w1 = whiten(a[i1], b[i1], eps);
-      w1 = make_float2(w1.x * bk, w1.y * bk);
-    }
-    store_packed(row, k, n, w0, w1);
   }
 }
 
@@ -2494,7 +2471,8 @@ cudaError_t gcc_split(Load load, int scenes, int mics, const int* pairs_i,
 // The TPU kernels kept a row's butterfly planes in VMEM; a 65,536-point
 // row (512 KB) does not fit a block's 227 KB.  K1, K2 and K5 take one
 // route a shape (`GccRoute`, ``cuda_fft.gcc_route`` from nfft and the mic
-// count), so that K5 and K3 then K2 compute the same bits:
+// count), so that K5 and K3 then K2 compute the same bits; above 2^26 K1
+// alone takes the long route (``cuda_fft.gcc_all_route``):
 //
 // block (n <= 4,096 where a scene's packed mic rows and a spare row fit
 //      one block): `gcc_block` / `window_block`, one launch.
@@ -2514,10 +2492,16 @@ cudaError_t gcc_split(Load load, int scenes, int mics, const int* pairs_i,
 //      `fft_real_block` into the spectra; `corr_block` with
 //      `PairIndexLoad`, a block a packed cross row, and K1's (`CorrOut`)
 //      or K2's (`WindowOut`) epilogue.
-// passes (above 2^26):  the radix-2 passes through device memory.
+// long (K1 above 2^26, to 2^30):  the three-pass split through the
+//      spectra: K4a's passes A and B and `fft_real_rows` over the mic rows
+//      into their spectra; `corr_rows_long` with `PairIndexLoad`, pass B'
+//      and `long_cols_corr` (`corr_long`).
+// passes (K2 and K5 above 2^26):  the radix-2 passes through device
+//      memory.
 //
 // K9:  `corr_rows` with `RowPairLoad` (rows 2c and 2c + 1 of a and b),
-//      `corr_cols`; `corr_block` with `RowPairLoad` up to 4,096.
+//      `corr_cols`; `corr_block` with `RowPairLoad` up to 4,096;
+//      `corr_long` with `RowPairLoad` above 2^26.
 //
 // `corr_rows` gathers each strip's bins of the two spectra of a pair (bin
 // q <= n/2; the mirror comes from the Hermitian pair), whitens, runs the
@@ -2628,6 +2612,32 @@ struct PairIndexLoad {
   }
 };
 
+// `corr_rows`' and `corr_rows_long`'s gather: each mirror-pair task of
+// block blk (`pair_task`, strips of S rows at the stride ld) reads bin q
+// <= n/2 of the loader's spectra src, whitens a0 * conj(b0) (and a1 *
+// conj(b1)) times band[q] and stores the packed pair into work
+// (`store_pair`).
+template <int S>
+__device__ __forceinline__ void corr_gather(const CorrPair& src,
+                                            const float* __restrict__ band,
+                                            float eps, int blk, int n1,
+                                            int n2, int ld, float2* work) {
+  const int n = n1 * n2;
+  const int tasks = pair_tasks<S>(blk, n2);
+  for (int t = threadIdx.x; t < tasks; t += blockDim.x) {
+    const PairTask p = pair_task<S>(t, blk, n1, n2, ld);
+    const float bq = band[p.q];
+    float2 r0 = whiten(src.a0[p.q], src.b0[p.q], eps);
+    r0 = make_float2(r0.x * bq, r0.y * bq);
+    float2 r1 = make_float2(0.0f, 0.0f);
+    if (src.two) {
+      r1 = whiten(src.a1[p.q], src.b1[p.q], eps);
+      r1 = make_float2(r1.x * bq, r1.y * bq);
+    }
+    store_pair(work, p, n, r0, r1);
+  }
+}
+
 // K1's, K2's, K5's and K9's pass 2.  Grid (n1 / S, packed cross rows):
 // block (b, c) forms rows pair_row(b, r) of packed cross row c, whiten(a
 // * conj(b)) * band of the loader's two pairs, from bins q <= n/2 of the
@@ -2663,19 +2673,7 @@ corr_rows(Load load, const float* __restrict__ band, float eps, int n1,
   stage_split_twiddles<split_where<S>()>(stw, tw, n1, n2, true);
   const auto hv = stage_split_lo_hi<kHi, split_where<S>()>(lo, hi, tw, n1,
                                                             n2);
-  const int tasks = pair_tasks<S>(blk, n2);
-  for (int t = threadIdx.x; t < tasks; t += blockDim.x) {
-    const PairTask p = pair_task<S>(t, blk, n1, n2, ld);
-    const float bq = band[p.q];
-    float2 r0 = whiten(src.a0[p.q], src.b0[p.q], eps);
-    r0 = make_float2(r0.x * bq, r0.y * bq);
-    float2 r1 = make_float2(0.0f, 0.0f);
-    if (src.two) {
-      r1 = whiten(src.a1[p.q], src.b1[p.q], eps);
-      r1 = make_float2(r1.x * bq, r1.y * bq);
-    }
-    store_pair(work, p, n, r0, r1);
-  }
+  corr_gather<S>(src, band, eps, blk, n1, n2, ld, work);
   palt::block_fft<S>(work, 1, ld, n2, stw, -1.0f);
   store_rows<S>(work, zc + (size_t)c * n, lo, hv, blk, n1, n2, ld);
 }
@@ -2715,6 +2713,102 @@ cudaError_t corr_rows_launch(Load load, int rows_c, const float* band,
         load, band, eps, n1, n2, tw, zc, keys, count);
     return cudaGetLastError();
   });
+}
+
+// K1's and K9's row pass of the three-pass split (above 2^26): `corr_rows`
+// at n2 = 8,192 in strips of S = 2 rows (row k1 and its partner n1 - k1;
+// block 0 rows 0 and n1/2), 1,024 threads, the rows written back without
+// the conjugate twiddle W_n^{-j2 k1}, which pass B' takes (as
+// `boot_rows_long` leaves it): so it holds no n1-point table (128 KB at
+// 2^27, too many beside the strip) and no n2-point one, only the n2-point
+// sub-twiddles of its inverse row DFTs, staged from their contiguous half
+// table.  The gather, the whitening and the band are `corr_rows`'.
+template <int S, class Load>
+__global__ void __launch_bounds__(1024)
+corr_rows_long(Load load, const float* __restrict__ band, float eps, int n1,
+               int n2, const float2* __restrict__ tw,
+               float2* __restrict__ zc) {
+  float2* stw = palt::fft_shared();
+  float2* work = stw + (n2 >> 1);
+  const int ld = row_ld<S>(n2);  // conflict-free half-warps
+  const int n = n1 * n2;
+  const int c = blockIdx.y;
+  const int blk = blockIdx.x;
+  const CorrPair src = load.pair(c, (size_t)(n >> 1) + 1);
+  stage_split_twiddles<1>(stw, tw, n1, n2, true);
+  corr_gather<S>(src, band, eps, blk, n1, n2, ld, work);
+  palt::block_fft<S>(work, 1, ld, n2, stw, -1.0f);
+  store_rows_long<S>(work, zc + (size_t)c * n, blk, n1, n2, ld);
+}
+
+// Pass A' with K1's and K9's epilogue, `corr_cols` of the three-pass
+// split.  Grid as pass A's (n1b * n2 / S blocks (j1b, strip)) over the
+// packed cross rows rc = scene * couples + c: `long_cols_a_inverse`, then
+// the samples times 1/n into rows 2c (real part) and 2c + 1 (imaginary
+// part, unless num_pairs is odd and c the last couple) of out (scenes,
+// num_pairs, n): runs of S = 16 floats, 64 bytes of each output row.  A
+// row of out starts n floats after the one before (size_t: 2^30 at 2^30).
+template <int S>
+__global__ void __launch_bounds__(1024)
+long_cols_corr(const float2* __restrict__ y, int num_pairs, int couples,
+               int n1a, int n1b, int n2, const float2* __restrict__ tw,
+               float* __restrict__ out) {
+  float2* stw = palt::fft_shared();
+  float2* buf = stw + (n1a >> 1);
+  const size_t n = (size_t)n1a * n1b * n2;
+  const int rc = blockIdx.y;
+  const int scene = rc / couples;
+  const int p0 = 2 * (rc - scene * couples);
+  const bool two = p0 + 1 < num_pairs;
+  const int strips = n2 / S;
+  const int j1b = blockIdx.x / strips;
+  const int c0 = (blockIdx.x - j1b * strips) * S;
+  const LongTables t = long_tables(tw, n1a, n1b, n2);
+  long_cols_a_inverse<S>(y + (size_t)rc * n, t, n1a, n1b, n2, j1b, c0, stw,
+                         buf);
+  const int total = n1a * S;
+  const float scale = 1.0f / (float)n;
+  float* o0 = out + ((size_t)scene * num_pairs + p0) * n;
+  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
+    const size_t j = (size_t)(n1b * (idx / S) + j1b) * n2 + c0 + idx % S;
+    const float2 z = buf[idx];
+    o0[j] = z.x * scale;
+    if (two) o0[n + j] = z.y * scale;
+  }
+}
+
+// K9 and K1's back half on the three-pass split (n = n1 * n2, n1 = n1a *
+// n1b): `corr_rows_long` over `rows_c` = scenes * couples packed cross rows
+// given by load (rs = 2 rows a strip), B' and A' with the correlations
+// (cs = kStrip columns) into out (scenes, num_pairs, n), through zc
+// (rows_c, n) in place.
+template <class Load>
+cudaError_t corr_long(Load load, int rows_c, int num_pairs,
+                      const float* band, float eps, int n, int n1, int n1a,
+                      int cs, int rs, const float2* tw, float2* zc,
+                      float* out, cudaStream_t s) {
+  constexpr int S = palt::kStrip;
+  constexpr int kRows = 2;
+  const int n2 = n / n1;
+  const int n1b = n1 / n1a;
+  if (cs != S || rs != kRows) return cudaErrorInvalidValue;
+  cudaError_t err = palt::allow_smem<corr_rows_long<kRows, Load>>();
+  if (err != cudaSuccess) return err;
+  corr_rows_long<kRows, Load><<<dim3(n1 / kRows, rows_c),
+                                palt::fft_threads(n2, kRows),
+                                (n2 / 2 + kRows * row_ld<kRows>(n2)) *
+                                    (int)sizeof(float2),
+                                s>>>(load, band, eps, n1, n2, tw, zc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = long_cols_b_launch<true>(rows_c, n1a, n1b, n2, tw, zc, s);
+  if (err != cudaSuccess) return err;
+  err = palt::allow_smem<long_cols_corr<S>>();
+  if (err != cudaSuccess) return err;
+  long_cols_corr<S><<<dim3(n1b * (n2 / S), rows_c), palt::fft_threads(n1a, S),
+                      (n1a / 2 + n1a * S) * (int)sizeof(float2), s>>>(
+      zc, num_pairs, (num_pairs + 1) / 2, n1a, n1b, n2, tw, out);
+  return cudaGetLastError();
 }
 
 // K1's and K9's epilogue of `gcc_body` and `corr_block`: both
@@ -3343,14 +3437,17 @@ int palt_fft_real(const float* x, int rows, int len, int n, int n1, int cs,
 // mics rows of n/2 + 1 complex) and z0 (the cross rows; may be spec0),
 // with strips of cs columns, s2 rows in K4a's pass 2 and rs rows in the
 // row pass; one block a packed cross row through the spectra
-// (`spectra_block`), two launches through spec1; the radix-2 passes
-// through spec0 / spec1 and z0 / z1.
+// (`spectra_block`), two launches through spec1; above 2^26 the three-pass
+// split through the spectra (kRouteLong, n1 = n1a * n1b), six launches
+// through the same buffers: K4a's passes A and B and `fft_real_rows` over
+// the mic rows (strips of cs = 16 columns and s2 = 2 rows), then
+// `corr_long` with `PairIndexLoad` (rs = 2 rows).  n1a is 0 off kRouteLong.
 int palt_gcc_all_pairs(const float* x, int scenes, int mics, int len, int n,
-                       int n1, int route, int cs, int s2, int rs,
+                       int n1, int route, int cs, int s2, int rs, int n1a,
                        const int* pairs_i, const int* pairs_j, int num_pairs,
                        const float* band, float eps, const float2* tw,
-                       float2* spec0, float2* spec1, float2* z0, float2* z1,
-                       float* out, void* stream) {
+                       float2* spec0, float2* spec1, float2* z0, float* out,
+                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int rows = scenes * mics;
   const int packed = (rows + 1) / 2;
@@ -3385,21 +3482,16 @@ int palt_gcc_all_pairs(const float* x, int scenes, int mics, int len, int n,
                                                       n1, n / n1, tw, out, s);
     });
   }
-  if (route != kRoutePasses) return (int)cudaErrorInvalidValue;
-  pack_rows<<<dim3(palt::pass_blocks(n), packed), kThreads, 0, s>>>(
-      x, rows, len, len, n, spec0);
-  PALT_CHECK();
-  float2* spec = fft_rows(spec0, spec1, tw, n, packed, 0, log2_int(n), s);
-  PALT_CHECK();
-  gcc_cross<<<dim3(bin_blocks(n), cross), kThreads, 0, s>>>(
-      spec, pairs_i, pairs_j, num_pairs, mics, couples, band, eps, n, z0);
-  PALT_CHECK();
-  float2* corr = fft_rows(z0, z1, tw, n, cross, 1, log2_int(n), s);
-  PALT_CHECK();
-  split_pairs<<<dim3(palt::pass_blocks(n), cross), kThreads, 0, s>>>(
-      corr, num_pairs, couples, n, 1.0f / (float)n, out);
-  PALT_CHECK();
-  return 0;
+  if (route != kRouteLong) return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      long_forward(load, packed, n1a, n1 / n1a, n / n1, cs, tw, spec0, s);
+  if (err != cudaSuccess) return (int)err;
+  err = (cudaError_t)fft_real_rows_launch(spec0, rows, n1, n / n1, s2, tw,
+                                          spec1, s);
+  if (err != cudaSuccess) return (int)err;
+  const PairIndexLoad pairs{spec1, pairs_i, pairs_j, num_pairs, mics};
+  return (int)corr_long(pairs, cross, num_pairs, band, eps, n, n1, n1a, cs, rs,
+                        tw, z0, out, s);
 }
 
 // K2: x (scenes, mics, len) -> win (scenes, num_pairs, 2*wq*128) lag-centred
@@ -3493,30 +3585,24 @@ int palt_whiten(const float2* z, long long count, float eps, float2* out,
 // K9: a, b (rows, n/2+1) complex natural-order spectra, band (n/2+1) ->
 // out (rows, n) circular correlations of whiten(a * conj(b)) * band,
 // scaled by 1/n (K1's back half with arbitrary row pairs).  n1 = 1: one
-// block a packed row (`corr_block`), no buffer; n1 > 1: the two launches of
-// the split n = n1 * n2 through z0, strips of cs columns and rs rows (16,
-// 8, 4 or 2 each); n1 = 0: the radix-2 passes (n > 2^26) through z0 / z1.
+// block a packed row (`corr_block`), no buffer; n1 > 1: through z
+// (ceil(rows / 2), n), up to 2^26 (n1a = 0) the two launches of the split n
+// = n1 * n2, strips of cs columns and rs rows (16, 8, 4 or 2 each), above
+// (n1a > 0) the three-pass split's three (`corr_long`, n1 = n1a * n1b, cs =
+// 16 and rs = 2).
 int palt_whitened_corr(const float2* a, const float2* b, int rows, int n,
-                       int n1, int cs, int rs, const float* band, float eps,
-                       const float2* tw, float2* z0, float2* z1, float* out,
+                       int n1, int cs, int rs, int n1a, const float* band,
+                       float eps, const float2* tw, float2* z, float* out,
                        void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int couples = (rows + 1) / 2;
   if (n1 == 1)
     return (int)corr_block_launch(RowPairLoad{a, b, rows}, couples, rows, band,
                                   eps, n, kBlockThreads, tw, CorrOut{out}, s);
-  if (n1 > 1)
-    return (int)corr_split(a, b, rows, band, eps, n, n1, cs, rs, tw, z0, out,
-                           s);
-  corr_cross<<<dim3(bin_blocks(n), couples), kThreads, 0, s>>>(
-      a, b, rows, band, eps, n, z0);
-  PALT_CHECK();
-  float2* corr = fft_rows(z0, z1, tw, n, couples, 1, log2_int(n), s);
-  PALT_CHECK();
-  split_pairs<<<dim3(palt::pass_blocks(n), couples), kThreads, 0, s>>>(
-      corr, rows, couples, n, 1.0f / (float)n, out);
-  PALT_CHECK();
-  return 0;
+  if (n1a > 0)
+    return (int)corr_long(RowPairLoad{a, b, rows}, couples, rows, band, eps, n,
+                          n1, n1a, cs, rs, tw, z, out, s);
+  return (int)corr_split(a, b, rows, band, eps, n, n1, cs, rs, tw, z, out, s);
 }
 
 // K3: base (scenes, len) real, tau/gain (scenes, mics, paths) in samples /

@@ -18,14 +18,13 @@ delay_sum             bfly_delay_sum (:1851)                 memory: 1 to 8*
 whiten                pallas_kernels.phat_whiten_planes (:34) memory: 16 B/bin
 ===================== ====================================== ==================
 
-(*) Above 2^26 points, to ``FFT_LONG_MAX`` (2^30), K4a, K4b and K6 run
-a three-pass split (``long_plan``: K4a 3 launches, K4b and K6 5), and the
-spectra routes' kernels (K9, K1, K2, K3, K5) the radix-2 passes (K9: the
-cross spectra, log2(nfft) passes and the split into the pairs, 2 +
-log2(nfft) launches).  K1, K2 and K5's GCC
-take one route a shape (``gcc_route``): 1 launch in one block a scene,
-3 with ``gcc_rows``, 4 through the mic rows' spectra on the split, 2
-through them in one block.
+(*) Above 2^26 points, to ``FFT_LONG_MAX`` (2^30), K4a, K4b, K6, K9 and
+K1 run a three-pass split (``long_plan``: K4a 3 launches, K4b and K6 5,
+K9 3, K1 6 through its mic rows' spectra), and K2, K3 and K5 the radix-2
+passes.  K1, K2 and K5's GCC take one route a shape (``gcc_route``; K1's
+``gcc_all_route``): 1 launch in one block a scene, 3 with ``gcc_rows``,
+4 through the mic rows' spectra on the split, 2 through them in one
+block.
 K3's render and K5's render stage take one route a length
 (``render_route``): 1 launch in one block, 3 with ``render_rows``, 4
 through the base rows' spectra, then the finish: 1 launch, a block a mic
@@ -55,18 +54,20 @@ the n2-point table from device memory at 8,192 (``split_hi_points``);
 ``split_plan`` gives each launch of K4a's, K4b's and K6's,
 ``spectra_plan`` each of the spectra routes', with the row strips'
 bank-spread stride; above 2^26 K4a, K4b and K6 split the n1-point
-columns again into two passes of 16-column strips, ``long_plan``), so a
+columns again into two passes of 16-column strips, ``long_plan``, and
+so do K9 and K1, whose row pass leaves its twiddle to the inverse column
+passes), so a
 transform reads
 and writes each point once per launch (16 bytes a complex point) and is
 bound by device memory at that.  Up to 4,096 points the bootstraps, K9,
 the render (a packed base row a block) and the all-pairs and windowed
 GCCs (a scene a block up to 10 mics at 4,096, else a packed cross row a
 block through the mic rows' spectra) hold a whole row in one block, so
-K3 is one launch there, K2 one or two and K5 two or three.  The others
-run radix-2 Stockham passes over rows in device memory, one launch and
-16 bytes a point per pass, about 16·log2(nfft) bytes per point and
-transform, and fuse their first or last pass into a prologue or
-epilogue: the spectra routes' kernels above 2^26 only.
+K3 is one launch there, K2 one or two and K5 two or three.  Above 2^26
+K2, K3 and K5 run radix-2 Stockham passes over rows in device memory,
+one launch and 16 bytes a point per pass, about 16·log2(nfft) bytes per
+point and transform, and fuse their first or last pass into a prologue
+or epilogue.
 The design keeps the rest of the work out of device memory where the TPU
 kernels did: real rows are packed two to a complex transform, the whitening /
 ramp synthesis runs in one pass over the spectra, two real results share
@@ -239,10 +240,10 @@ def _library() -> ctypes.CDLL:
             "palt_noise_bootstrap_peaks": [p, p, i, i, i, i, i, i, i, f, p,
                                            p, p, p],
             "palt_whiten": [p, ctypes.c_longlong, f, p, p],
-            "palt_whitened_corr": [p, p, i, i, i, i, i, p, f, p, p, p, p,
+            "palt_whitened_corr": [p, p, i, i, i, i, i, i, p, f, p, p, p,
                                    p],
-            "palt_gcc_all_pairs": [p, i, i, i, i, i, i, i, i, i, p, p, i, p,
-                                   f, p, p, p, p, p, p, p],
+            "palt_gcc_all_pairs": [p, i, i, i, i, i, i, i, i, i, i, p, p, i,
+                                   p, f, p, p, p, p, p, p],
             "palt_bootstrap_peaks": [p, p, i, i, i, i, i, i, i, f, p, p,
                                      p, p],
             "palt_gcc_windowed": [p, i, i, i, i, i, i, i, i, i, p, p, i, p,
@@ -419,16 +420,31 @@ def _split_n1(nfft: int) -> int:
 
 
 def _long_n1a(nfft: int) -> int:
-    """n1a of K4a's, K4b's and K6's three-pass split (``long_plan``) above
-    ``FFT_SPLIT_MAX``, as their entry points take it; 0 below."""
+    """n1a of the three-pass split (``long_plan``) above ``FFT_SPLIT_MAX``,
+    as the entry points of K4a, K4b, K6, K9 and K1 take it; 0 below."""
     return long_plan(nfft).n1a if nfft > FFT_SPLIT_MAX else 0
 
 
 def corr_schedule(nfft: int) -> int:
-    """n1 of K9's schedule at nfft: K4a's up to ``FFT_SPLIT_MAX`` (one
-    block a packed row, ``corr_block``, or the split: the spectra routes'
-    last two launches, ``spectra_plan``); 0, the radix-2 passes, above."""
-    return fft_real_split(nfft)[0] if nfft <= FFT_SPLIT_MAX else 0
+    """n1 of K9's schedule at nfft, K4a's (``_split_n1``): 1, one block a
+    packed row (``corr_block``), up to ``FFT_REAL_ONE_BLOCK``; the split
+    to ``FFT_SPLIT_MAX`` (the spectra routes' last two launches,
+    ``spectra_plan``); the three-pass split above (``corr_rows_long``, B'
+    and A' with the correlations, ``long_plan``)."""
+    return _split_n1(nfft)
+
+
+def _corr_strips(nfft: int):
+    """(column strip, row strip) of K9's schedule at nfft: (0, 0) in one
+    block, ``spectra_plan``'s column and row passes' to 2^26, ``long_plan``'s
+    ``corr_cols`` and ``corr_rows`` above."""
+    if nfft <= FFT_REAL_ONE_BLOCK:
+        return 0, 0
+    if nfft > FFT_SPLIT_MAX:
+        plan = long_plan(nfft)
+        return plan.corr_cols.strip, plan.corr_rows.strip
+    plan = spectra_plan(nfft)
+    return plan.spec_cols.strip, plan.spec_rows.strip
 
 
 def _split_strips(n1: int, nfft: int):
@@ -445,8 +461,8 @@ def _split_strips(n1: int, nfft: int):
 
 
 def _pass_scratch(n1: int, packed: int, nfft: int, device):
-    """The scratch of K4a's, K4b's and K6's schedule n1 for ``packed``
-    packed rows: none in one block, one buffer on the split."""
+    """The scratch of K4a's, K4b's, K6's and K9's schedule n1 for
+    ``packed`` packed rows: none in one block, one buffer on the split."""
     return None if n1 == 1 else _scratch(packed, nfft, device)
 
 
@@ -486,10 +502,11 @@ def fft_real_split(nfft: int):
     (4 columns, 2 rows) and 8192 x 8192 at ``FFT_SPLIT_MAX`` (2^26,
     strips of 2).  ``SPLIT_COLS_LONG_MAX`` picks only that orientation:
     every transforming kernel runs the split up to ``FFT_SPLIT_MAX``.
-    Above, to ``FFT_LONG_MAX`` (2^30), K4a's, K4b's and K6's three-pass
-    split keeps that row side, n2 = 8,192 (a row pass's strip of row k1 and
-    its partner holds ``BLOCK_POINTS``), and n1 = nfft / 8,192, 16,384 at
-    2^27 to 131,072 at 2^30, whose columns ``long_plan`` splits again."""
+    Above, to ``FFT_LONG_MAX`` (2^30), the three-pass split of K4a, K4b,
+    K6, K9 and K1 keeps that row side, n2 = 8,192 (a row pass's strip of
+    row k1 and its partner holds ``BLOCK_POINTS``), and n1 = nfft / 8,192,
+    16,384 at 2^27 to 131,072 at 2^30, whose columns ``long_plan`` splits
+    again."""
     if nfft <= FFT_REAL_ONE_BLOCK:
         return 1, nfft
     if nfft > FFT_SPLIT_MAX:
@@ -659,8 +676,9 @@ def spectra_plan(nfft: int, packed: int = 1) -> SpectraPlan:
     the contiguous copies of ``_twiddles``; the row pass keeps
     ``fft_threads`` = 1,024 threads a block there (512 of twice the
     points, as ``boot_rows``, measured 3-12 % slower on an H100;
-    PERF.md).  Above 2^26 ``split_plan`` raises: the spectra routes run
-    the radix-2 passes there (K4a, K4b and K6 ``long_plan``'s split)."""
+    PERF.md).  Above 2^26 ``split_plan`` raises: K2, K3 and K5 run the
+    radix-2 passes there, K4a, K4b, K6, K9 and K1 ``long_plan``'s
+    split."""
     plan = split_plan(nfft, packed)
     n1, n2 = fft_real_split(nfft)
     cs = plan.cols.strip
@@ -669,23 +687,26 @@ def spectra_plan(nfft: int, packed: int = 1) -> SpectraPlan:
 
 
 class LongPlan(NamedTuple):
-    """The launches of K4a's, K4b's and K6's three-pass split above
-    ``FFT_SPLIT_MAX`` (``long_plan``): the factors n1 = n1a * n1b of its
-    columns; pass A (``long_cols_a``, and mirrored with the maxima
-    ``long_cols_max``, which holds 128 bytes more); pass B
-    (``long_cols_b``, forward and back); K4a's row pass (``fft_real_rows``)
-    and K4b's and K6's (``boot_rows_long``)."""
+    """The launches of the three-pass split above ``FFT_SPLIT_MAX``
+    (``long_plan``): the factors n1 = n1a * n1b of its columns; pass A
+    (``long_cols_a``, and mirrored with the maxima ``long_cols_max``,
+    which holds 128 bytes more); pass B (``long_cols_b``, forward and
+    back); K4a's row pass (``fft_real_rows``) and K4b's and K6's
+    (``boot_rows_long``); K9's and K1's row pass (``corr_rows_long``) and
+    pass A mirrored with the correlations (``long_cols_corr``)."""
     n1a: int
     n1b: int
     cols_a: SplitPass
     cols_b: SplitPass
     rows: SplitPass
     boot_rows: SplitPass
+    corr_rows: SplitPass
+    corr_cols: SplitPass
 
 
 def long_plan(nfft: int, packed: int = 1) -> LongPlan:
-    """Each launch of K4a's, K4b's and K6's three-pass split at nfft
-    (``FFT_SPLIT_MAX`` < nfft <= ``FFT_LONG_MAX``: 2^27 to 2^30) for
+    """Each launch of the three-pass split of K4a, K4b, K6, K9 and K1 at
+    nfft (``FFT_SPLIT_MAX`` < nfft <= ``FFT_LONG_MAX``: 2^27 to 2^30) for
     ``packed`` packed rows a launch.  The split's n1 x n2
     (``fft_real_split``: n2 = 8,192) with n1 = n1a * n1b, n1a =
     2^ceil(log2(n1) / 2): 128 x 128 at 2^27, 256 x 128 at 2^28, 256 x 256
@@ -697,8 +718,9 @@ def long_plan(nfft: int, packed: int = 1) -> LongPlan:
     quarter of a 32-byte sector at 2^30 on the two-pass split).  The row
     passes as at 2^26: ``fft_real_rows_strip``'s 2 rows (row k1 and its
     partner) at the stride ``row_ld``, 163,968 bytes, and
-    ``boot_rows_long``'s 2 rows in 512 threads, the same bytes (no n1- or
-    n2-point table: pass B' takes the inverse twiddle)."""
+    ``boot_rows_long``'s and ``corr_rows_long``'s 2 rows (in 512 and 1,024
+    threads), the same bytes (no n1- or n2-point table: pass B' takes the
+    inverse twiddle); ``long_cols_corr`` pass A's strip and bytes."""
     if not FFT_SPLIT_MAX < nfft <= FFT_LONG_MAX:
         raise ValueError(f"long_plan: nfft {nfft} is not on the three-pass "
                          f"split")
@@ -718,9 +740,10 @@ def long_plan(nfft: int, packed: int = 1) -> LongPlan:
         return 8 * (n2 // 2 + strip * row_ld(strip, n2))
 
     rs = _widest(n2, rows_smem, where)
-    return LongPlan(n1a, n1b, SplitPass(cs, cols_smem(n1a, cs)),
-                    SplitPass(cs, cols_smem(n1b, cs)),
-                    SplitPass(s2, rows_smem(s2)), SplitPass(rs, rows_smem(rs)))
+    cols_a = SplitPass(cs, cols_smem(n1a, cs))
+    return LongPlan(n1a, n1b, cols_a, SplitPass(cs, cols_smem(n1b, cs)),
+                    SplitPass(s2, rows_smem(s2)), SplitPass(rs, rows_smem(rs)),
+                    SplitPass(rs, rows_smem(rs)), cols_a)
 
 
 def _gcc_block_smem(nfft: int, mics: int) -> int:
@@ -741,9 +764,9 @@ class GccRoute(NamedTuple):
     rows: int
 
 
-ROUTE_PASSES, ROUTE_BLOCK, ROUTE_ROWS, ROUTE_SPECTRA, ROUTE_SPECTRA_BLOCK = (
-    range(5))
-ROUTE_NAMES = ("passes", "block", "rows", "spectra", "spectra block")
+(ROUTE_PASSES, ROUTE_BLOCK, ROUTE_ROWS, ROUTE_SPECTRA, ROUTE_SPECTRA_BLOCK,
+ ROUTE_LONG) = range(6)
+ROUTE_NAMES = ("passes", "block", "rows", "spectra", "spectra block", "long")
 
 
 def gcc_route(nfft: int, mics: int) -> GccRoute:
@@ -768,7 +791,8 @@ def gcc_route(nfft: int, mics: int) -> GccRoute:
       = 2,048 and 8 rows at n2 = 2,048, 4 rows at n2 = 4,096 (2^23), 4
       columns at n1 = 4,096 (2^24, 2^25), 2 rows at n2 = 8,192 (2^25,
       2^26) and 2 columns at n1 = 8,192 (2^26);
-    - the radix-2 passes above, as the spectra routes' kernels."""
+    - the radix-2 passes above, as K3's render (K1 takes the three-pass
+      split there, ``gcc_all_route``)."""
     if nfft <= FFT_REAL_ONE_BLOCK:
         if _gcc_block_smem(nfft, mics) <= SMEM_OPTIN:
             return GccRoute(ROUTE_BLOCK, 1, 0, 0)
@@ -780,6 +804,22 @@ def gcc_route(nfft: int, mics: int) -> GccRoute:
             and _row_pass_smem(n1, n2, (mics + 1) // 2 + 1) <= SMEM_OPTIN):
         return GccRoute(ROUTE_ROWS, n1, 0, 0)
     return _spectra_route(nfft)
+
+
+def gcc_all_route(nfft: int, mics: int) -> GccRoute:
+    """K1's route at nfft for ``mics`` mics a scene: ``gcc_route``'s up to
+    ``FFT_SPLIT_MAX``; above, to ``FFT_LONG_MAX``, the three-pass split
+    through the mic rows' spectra (``ROUTE_LONG``: K4a's passes A, B and
+    ``fft_real_rows`` into the spectra, ``corr_rows_long`` with the
+    pair-indexed loader, B' and ``long_cols_corr``; n1 the split's,
+    ``long_plan``'s column strip and ``corr_rows`` strip), at any mic
+    count.  K2's and K5's GCC keep ``gcc_route``'s radix-2 passes there, so
+    that K5 stays K3 then K2 to the bit."""
+    if nfft <= FFT_SPLIT_MAX:
+        return gcc_route(nfft, mics)
+    plan = long_plan(nfft)
+    return GccRoute(ROUTE_LONG, fft_real_split(nfft)[0], plan.cols_a.strip,
+                    plan.corr_rows.strip)
 
 
 def _spectra_route(nfft: int) -> GccRoute:
@@ -808,7 +848,7 @@ def render_route(nfft: int) -> GccRoute:
       from n1 = 2,048 and 8 rows at n2 = 2,048, 4 rows at n2 = 4,096, 4
       columns at n1 = 4,096, 2 rows at n2 = 8,192 and 2 columns at n1 =
       8,192);
-    - the radix-2 passes above (n1 = 0), as the spectra routes' kernels.
+    - the radix-2 passes above (n1 = 0), as K2's and K5's GCC.
 
     The mic count does not enter: the render's row passes hold one or two
     strips at any mic count."""
@@ -845,9 +885,9 @@ def finish_groups(nfft: int, rows: int) -> int:
 
 
 def _copies(n1: int) -> int:
-    """Copies of a scratch buffer that a schedule n1 of K1, K2, K3 or K9
-    uses: none in one block, one on the split, two (ping-pong) on the
-    passes."""
+    """Copies of a scratch buffer that a schedule n1 of K2's, K3's or K5's
+    stages uses: none in one block, one on the split, two (ping-pong) on
+    the passes."""
     return 0 if n1 == 1 else (1 if n1 else 2)
 
 
@@ -871,21 +911,25 @@ def _gcc_buffers(route: GccRoute, scenes: int, mics: int, couples: int,
                  nfft: int, device):
     """K1's and K2's buffers on ``route`` for ``scenes`` scenes a launch:
     the strips argument (column strip, K4a's pass-2 strip, row strip; all
-    0 off the spectra route), pointers (spec0, spec1, cross0, cross1) and
+    0 off the spectra routes), pointers (spec0, spec1, cross0, cross1) and
     the tensors.  One block a scene: none.  ``gcc_rows``: the packed mic
-    rows and the cross rows.  The passes: two copies of each (ping-pong).
-    The spectra: K4a's packed rows, which the cross rows reuse once the
-    spectra are written, and the spectra (scenes * mics, nfft/2 + 1) in
-    spec1; the spectra block route the spectra alone."""
+    rows and the cross rows.  The passes (K2's alone): two copies of each
+    (ping-pong).  The spectra, on the split and (K1's) on the three-pass
+    split: K4a's packed rows, which the cross rows reuse once the spectra
+    are written, and the spectra (scenes * mics, nfft/2 + 1) in spec1; the
+    spectra block route the spectra alone."""
     packed = (scenes * mics + 1) // 2
     cross = scenes * couples
-    if route.kind in (ROUTE_SPECTRA, ROUTE_SPECTRA_BLOCK):
+    if route.kind in (ROUTE_SPECTRA, ROUTE_SPECTRA_BLOCK, ROUTE_LONG):
         spec = torch.empty((scenes * mics, nfft // 2 + 1),
                            dtype=torch.complex64, device=device)
         if route.kind == ROUTE_SPECTRA_BLOCK:
             return (0, 0, 0), (None, spec.data_ptr(), None, None), [spec]
         buf = _scratch(max(packed, cross), nfft, device)
-        return (_spectra_strips(nfft, packed),
+        strips = (_spectra_strips(nfft, packed) if route.kind == ROUTE_SPECTRA
+                  else (route.cols, long_plan(nfft, packed).rows.strip,
+                        route.rows))
+        return (strips,
                 (buf.data_ptr(), spec.data_ptr(), buf.data_ptr(), None),
                 [buf, spec])
     copies = _copies(route.n1)
@@ -1009,11 +1053,16 @@ def whitened_corr(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
     inverse column DFTs write the rows in natural order (the spectra
     routes' last two launches, ``spectra_plan``: strips of 16 rows and
     columns, 8 at 2,048, 4 at 4,096, 2 at 8,192, where the row pass reads
-    the n2-point table from device memory); above, the radix-2 passes.
-    Bound by device memory (the spectra's read, the rows' write, one
-    write and one read of the packed buffer on the split); a single pair's
-    call by its launches' latency.  A batch beyond ``ROW_CHUNK`` row
-    pairs launches in chunks."""
+    the n2-point table from device memory); above, to ``FFT_LONG_MAX``
+    (2^30), three launches over that buffer on the three-pass split
+    (``long_plan``, n1 = n1a * n1b): the row pass in strips of 2 rows
+    without the conjugate twiddle (``corr_rows_long``), the inverse
+    n1b-point column DFTs with the twiddle (pass B'), and the inverse
+    n1a-point ones, which write the correlations (``long_cols_corr``), in
+    strips of 16 columns.  Bound by device memory (the spectra's read, the
+    rows' write, one write and one read of the packed buffer a pass on
+    the split); a single pair's call by its launches' latency.  A batch
+    beyond ``ROW_CHUNK`` row pairs launches in chunks."""
     if _use_plain(a, b, mask):
         return whitened_corr_plain(a, b, mask, nfft, eps)
     _check_contiguous("whitened_corr", a, b, mask)
@@ -1030,15 +1079,15 @@ def whitened_corr(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
     rows = a.shape[0]
     out = torch.empty((rows, nfft), dtype=torch.float32, device=dev)
     n1 = corr_schedule(nfft)
-    cols, _, strip = _spectra_strips(nfft, 1) if n1 > 1 else (0, 0, 0)
+    cols, strip = _corr_strips(nfft)
     chunks = _row_chunks(rows)
-    z0, z1, _z = _buffers(_copies(n1), (chunks[0][1] + 1) // 2, nfft, dev)
+    z = _pass_scratch(n1, (chunks[0][1] + 1) // 2, nfft, dev)
     tw = _twiddles(nfft, str(dev))
     for r0, r1 in chunks:
         _launch("whitened_corr", dev, lib.palt_whitened_corr,
                 a[r0].data_ptr(), b[r0].data_ptr(), r1 - r0, nfft, n1, cols,
-                strip, mask.data_ptr(), eps, tw.data_ptr(), z0, z1,
-                out[r0].data_ptr())
+                strip, _long_n1a(nfft), mask.data_ptr(), eps, tw.data_ptr(),
+                _ptr(z), out[r0].data_ptr())
     return out
 
 
@@ -1067,9 +1116,13 @@ def _scene_bytes(nfft: int, mics: int, couples: int) -> int:
     half packed rows of nfft complex points: none up to
     ``FFT_REAL_ONE_BLOCK``; on the split (to ``FFT_SPLIT_MAX``) the mic
     rows' (mics) or the cross rows' (2 couples), whichever is more, and
-    the spectra of every mic row (mics); on the radix-2 passes two copies
-    each of the base rows' (1), the mic rows' and the cross rows'.  A
-    4-mic scene: 1.34 GB at 2^25, 2.68 GB at 2^26."""
+    the spectra of every mic row (mics); above, where K2, K3 and K5 run the
+    radix-2 passes, two copies each of the base rows' (1), the mic rows'
+    and the cross rows'.  K1's three-pass split there needs less (the
+    split's count), but takes the passes' count too: its chunks are
+    smaller than they need be, and the chunks of K2, K3 and K5, which K5
+    = K3 then K2 rests on, stay as they were.  A 4-mic scene: 1.34 GB at
+    2^25, 2.68 GB at 2^26, 11.8 GB at 2^27."""
     if nfft <= FFT_REAL_ONE_BLOCK:
         return 0
     if nfft <= FFT_SPLIT_MAX:
@@ -1117,7 +1170,8 @@ def gcc_all_pairs(signals: torch.Tensor, pairs_i: Sequence[int],
     scene (rows scene * M + mic, two per complex FFT, so an odd M packs
     across scenes), the whitened, band-masked cross-spectra of two pairs
     of one scene per packed Hermitian row, the packed inverse, 1/n and the
-    split into the two pairs.  By route (``gcc_route``, K2's):
+    split into the two pairs.  By route (``gcc_all_route``: K2's
+    ``gcc_route`` up to 2^26):
 
     - one block a scene (nfft <= ``FFT_REAL_ONE_BLOCK``, 4,096, up to 10
       mics): one launch, the scene's packed mic rows and a spare row in
@@ -1144,7 +1198,11 @@ def gcc_all_pairs(signals: torch.Tensor, pairs_i: Sequence[int],
       launches, K4a's one-block transform of every mic row into the
       spectra, then K9's one-block kernel a packed cross row with the
       pair-indexed loader;
-    - above 2^26 the radix-2 passes through device memory.
+    - above 2^26, to ``FFT_LONG_MAX`` (2^30), the three-pass split through
+      the spectra (``long_plan``): six launches, K4a's three (passes A and
+      B, ``fft_real_rows``) into the spectra, then K9's three with the
+      pair-indexed loader (``corr_rows_long``, B', ``long_cols_corr``),
+      through the same two buffers.
 
     A batch whose grids would exceed 65,535 rows, or whose scratch would
     pass ``SPLIT_SCRATCH_BYTES``, launches over scene chunks
@@ -1166,7 +1224,7 @@ def gcc_all_pairs(signals: torch.Tensor, pairs_i: Sequence[int],
     scenes = int(np.prod(lead)) if lead else 1
     num_pairs = int(pi.shape[0])
     couples = (num_pairs + 1) // 2
-    route = gcc_route(nfft, mics)
+    route = gcc_all_route(nfft, mics)
     chunk = (scenes if route.n1 == 1
              else scene_chunk(scenes, mics, num_pairs, nfft))
     if length > nfft or mask.shape != (nfft // 2 + 1,):
@@ -1187,11 +1245,13 @@ def gcc_all_pairs(signals: torch.Tensor, pairs_i: Sequence[int],
     strips, ptrs, _bufs = _gcc_buffers(route, chunk, mics, couples, nfft, dev)
     tw = _twiddles(nfft, str(dev))
     for s0 in range(0, scenes, chunk):
+        # K1 takes no ping-pong copy (ptrs[3]): it never runs the passes.
         _launch("gcc_all_pairs", dev, lib.palt_gcc_all_pairs,
                 x[s0].data_ptr(), min(chunk, scenes - s0), mics, length,
-                nfft, route.n1, route.kind, *strips, pi_t.data_ptr(),
+                nfft, route.n1, route.kind, *strips, _long_n1a(nfft),
+                pi_t.data_ptr(),
                 pj_t.data_ptr(), num_pairs, mask.data_ptr(), eps,
-                tw.data_ptr(), *ptrs, o[s0].data_ptr())
+                tw.data_ptr(), *ptrs[:3], o[s0].data_ptr())
     return out
 
 

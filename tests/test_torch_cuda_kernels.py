@@ -336,8 +336,8 @@ def test_whitened_corr_kernel_matches_plain(cuda, rows, length, nfft,
                                             schedule):
     """K9 on each of its schedules (``corr_schedule``): one block a packed
     row, the two launches of the split (up to 4096 x 4096, strips of 8 at
-    2,048 and 4 at 4,096) and the passes above 2^24; odd and even row
-    counts."""
+    2,048 and 4 at 4,096; to 2^26 in ``test_torch_cuda_long.py``) and the
+    three-pass split's three above 2^26; odd and even row counts."""
     assert cf.corr_schedule(nfft) == schedule
     g = _gen(cuda)
     x = torch.randn((2 * rows, length), generator=g, device=cuda)
@@ -535,16 +535,16 @@ def test_gcc_all_pairs_launches_over_scene_chunks(cuda, monkeypatch):
     (1, 3, 600000, 1 << 20, 1024)])
 def test_gcc_all_pairs_schedules_match_plain(cuda, b, m, length, nfft,
                                              schedule):
-    """K1 on each of its schedules (``gcc_route``'s n1): one block a scene
-    (the reverberant sweep's 512 scenes, one scene of 8 mics whose couples
-    spread over blocks, the odd edge of 5 scenes x 3 mics, 10 mics), the
-    three launches of the split (the api's one scene, whose row pass
+    """K1 on each of its schedules (``gcc_all_route``'s n1): one block a
+    scene (the reverberant sweep's 512 scenes, one scene of 8 mics whose
+    couples spread over blocks, the odd edge of 5 scenes x 3 mics, 10
+    mics), the three launches of the split (the api's one scene, whose row pass
     spreads its couples over ``gridDim.z``, no_gate's 131,072, an odd mic
     count at 8,192, 8 mics), the four through the mic rows' spectra on the
     split (11 mics at 65,536, past ``gcc_rows``; 3 mics at 2^20; a 23.7 s
     recording's 4 mics at 2^21, 2 scenes of 3 mics, 4 mics at 2^22) and
     the two through them in one block (12 mics at 4,096)."""
-    assert cf.gcc_route(nfft, m).n1 == schedule
+    assert cf.gcc_all_route(nfft, m).n1 == schedule
     g = _gen(cuda, 5)
     sig = torch.randn((m, length) if b is None else (b, m, length),
                       generator=g, device=cuda)

@@ -1,8 +1,8 @@
 """The CUDA kernels against their plain PyTorch twins on the card above
 2^20 points: the split of every transforming kernel to 2^26, above it
-(at 2^27) K4a's, K4b's and K6's three-pass split and K9's radix-2
-passes, K9's, K1's, K2's, K3's and K5's shapes from 2^21 to 2^26 through
-the spectra, and the device kernels a call runs there.
+(at 2^27) the three-pass split of K4a, K4b, K6, K9 and K1, K9's, K1's,
+K2's, K3's and K5's shapes from 2^21 to 2^26 through the spectra, and
+the device kernels a call runs there.
 
 A file of its own, run in its own process: in one process after these
 cases, late profiler traces in ``test_torch_cuda_kernels.py`` lost each
@@ -185,14 +185,16 @@ def test_bootstrap_chunks_by_bytes_keep_one_launch_bits(cuda, monkeypatch):
     (1, 600000, 1 << 21, 2048), (1, 2000000, 1 << 22, 2048),
     (1, 600000, 1 << 23, 2048), (1, 8400000, 1 << 24, 4096),
     (1, 600000, 1 << 25, 4096), (1, 16_800_000, 1 << 25, 4096),
-    (1, 600000, 1 << 26, 8192), (1, 600000, 1 << 27, 0)])
+    (1, 600000, 1 << 26, 8192), (1, 600000, 1 << 27, 16384),
+    (3, 67000000, 1 << 27, 16384)])
 def test_whitened_corr_kernel_matches_plain(cuda, rows, length, nfft,
                                             schedule):
     """K9 on the split at 2^21 and 2^22 (strips of 8 at 2,048), at 2^23
     (2,048 x 4,096: 8 columns, 4 rows), 2^24 (4,096 x 4,096: 4 and 4),
     2^25 (4,096 x 8,192: 4 and 2) and 2^26 (8,192 x 8,192: 2 and 2, the
     row pass reading the n2-point table from device memory), and on the
-    passes above 2^26."""
+    three-pass split above 2^26 (one and three row pairs of a 1,520 s
+    recording's length at 2^27: 128 x 128 x 8,192)."""
     _whitened_corr(cuda, rows, length, nfft, schedule)
 
 
@@ -202,13 +204,16 @@ def test_whitened_corr_kernel_matches_plain(cuda, rows, length, nfft,
     (None, 4, 2000000, 1 << 22, 2048), (None, 4, 4200000, 1 << 23, 2048),
     (None, 8, 4200000, 1 << 23, 2048), (None, 4, 8400000, 1 << 24, 4096),
     (None, 4, 16800000, 1 << 25, 4096), (None, 8, 16800000, 1 << 25, 4096),
-    (2, 3, 600000, 1 << 25, 4096), (None, 4, 33000000, 1 << 26, 8192)])
+    (2, 3, 600000, 1 << 25, 4096), (None, 4, 33000000, 1 << 26, 8192),
+    (None, 4, 67000000, 1 << 27, 16384), (2, 3, 600000, 1 << 27, 16384)])
 def test_gcc_all_pairs_schedules_match_plain(cuda, b, m, length, nfft,
                                              schedule):
     """K1 through the mic rows' spectra at 2^21 (a 23.7 s recording's 4
     mics, 2 scenes of 3 mics), 2^22, 2^23 (a 95 s recording's 4 and 8
     mics under ``max_expected_delay=None``), 2^24 (190 s), 2^25 (380 s: 4
-    and 8 mics; 2 scenes of 3 mics) and 2^26 (750 s)."""
+    and 8 mics; 2 scenes of 3 mics) and 2^26 (750 s), and on the
+    three-pass split at 2^27 (1,520 s: 4 mics; 2 scenes of 3 mics, an odd
+    pair count, mic rows packed across scenes)."""
     _gcc_schedules(cuda, b, m, length, nfft, schedule)
 
 
@@ -361,8 +366,11 @@ def test_device_kernels_per_call_above_2_26(cuda, tmp_path):
     kernels (passes A and B, ``long_cols_a`` and ``long_cols_b``, then
     ``fft_real_rows``), K4b and K6 five (A, B, ``boot_rows_long``, B' and
     A' with the maxima, ``long_cols_max``; K6's first with its
-    ``NoiseLoad``), none of the radix-2 passes; each against its twin and
-    K6 equal to K4b on the same draws."""
+    ``NoiseLoad``), K9 three (``corr_rows_long``, B', A' with the
+    correlations, ``long_cols_corr``) and K1 six (K4a's three into the
+    mic rows' spectra, then K9's three with the pair-indexed loader), none
+    of the radix-2 passes; each against its twin and K6 equal to K4b on
+    the same draws."""
     nfft, length = 1 << 27, 67_000_000
     g = _gen(cuda, 27)
     x = torch.randn((3, length), generator=g, device=cuda)
@@ -389,9 +397,31 @@ def test_device_kernels_per_call_above_2_26(cuda, tmp_path):
     assert len(names) == 5 and all(w in n for w, n in zip(boot, names)), \
         names
     assert "NoiseLoad" in names[0], names
-    passes = ("stockham_pass", "pack_rows")
+    passes = ("stockham_pass", "pack_rows", "gcc_cross", "split_pairs",
+              "corr_cross")
     assert not any(p in n for p in passes for n in names)
     del x
     draws = noise_ops.uniform(seeds, length)
     assert torch.equal(cf.noise_bootstrap_peaks(s1, seeds, length, nfft),
                        cf.bootstrap_peaks(s1, draws, nfft))
+    del draws
+    mask = cf.band_mask(nfft, None, None, device=cuda)
+    a, b = s1[None], cf.fft_real_plain(
+        torch.randn((1, length), generator=g, device=cuda), nfft)
+    corr = ("corr_rows_long", "long_cols_b", "long_cols_corr")
+    names = _device_kernels(lambda: cf.whitened_corr(a, b, mask, nfft),
+                            tmp_path / "k9_27.json")
+    assert len(names) == 3 and all(w in n for w, n in zip(corr, names)), \
+        names
+    assert not any(p in n for p in passes for n in names)
+    del a, b
+    sig = torch.randn((4, length), generator=g, device=cuda)
+    pi, pj = _pairs(4)
+    names = _device_kernels(lambda: cf.gcc_all_pairs(sig, pi, pj, nfft,
+                                                     mask),
+                            tmp_path / "k1_27.json")
+    k1 = ("long_cols_a", "long_cols_b", "fft_real_rows") + corr
+    assert len(names) == 6 and all(w in n for w, n in zip(k1, names)), \
+        names
+    assert "PairIndexLoad" in names[3], names
+    assert not any(p in n for p in passes for n in names)

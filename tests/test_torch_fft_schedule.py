@@ -609,9 +609,9 @@ def test_split_strips_rule(n, strips, rows_strip):
     assert cf.corr_schedule(n) == n1
     spectra = cf.spectra_plan(n)
     assert (spectra.spec_cols.strip, spectra.spec_rows.strip) == strips
-    # Above 2^26 K9 takes the passes and K4a, K4b and K6 the three-pass
-    # split (``long_plan``).
-    assert cf.corr_schedule(2 * cf.FFT_SPLIT_MAX) == 0
+    # Above 2^26 K9, as K4a, K4b and K6, takes the three-pass split
+    # (``long_plan``).
+    assert cf.corr_schedule(2 * cf.FFT_SPLIT_MAX) == 16384
     assert cf._split_n1(2 * cf.FFT_SPLIT_MAX) == 16384
     assert cf._split_strips(16384, 2 * cf.FFT_SPLIT_MAX) == (16, 2)
     assert cf.STAGE_SPLIT_MAX == 1 << 20 and cf.SPLIT_COLS_LONG_MAX == 1 << 22
@@ -1940,14 +1940,22 @@ def test_gcc_schedule_rule(n, mics, want):
 @pytest.mark.parametrize("n,want", [
     (4, 1), (128, 1), (4096, 1), (8192, 128), (65536, 256), (131072, 512),
     (1 << 20, 1024), (1 << 21, 2048), (1 << 22, 2048), (1 << 23, 2048),
-    (1 << 24, 4096), (1 << 25, 4096), (1 << 26, 8192), (1 << 27, 0)])
+    (1 << 24, 4096), (1 << 25, 4096), (1 << 26, 8192), (1 << 27, 16384),
+    (1 << 30, 131072)])
 def test_corr_schedule_rule(n, want):
     """K9's schedule (``corr_schedule``): one block up to 4,096, K4a's
     split up to 2^26 (its row pass's one strip of ``spectra_plan`` fits at
     every split: 16 rows, 8 at n2 = 2,048, 4 at 4,096, 2 at 8,192 with
-    the n2-point table in device memory), the passes above, as K4a's."""
+    the n2-point table in device memory), the three-pass split above, as
+    K4a's (``corr_rows_long`` in strips of 2 rows of 8,192 without an
+    n1- or n2-point table)."""
     assert cf.corr_schedule(n) == want
-    if 1 < want:
+    if n > cf.FFT_SPLIT_MAX:
+        plan = cf.long_plan(n)
+        assert plan.corr_rows.strip == 2 and n // want == 8192
+        assert plan.corr_rows.smem == 8 * (4096 + 2 * cf.row_ld(2, 8192))
+        assert plan.corr_rows.smem <= cf.SMEM_OPTIN
+    elif 1 < want:
         plan = cf.spectra_plan(n)
         rows = plan.spec_rows.strip
         n2 = n // want

@@ -6,8 +6,8 @@ outputs are left as allocated, so these tests read the launches only.
 
 They hold the split of all eight transforming kernels up to 2^26 (strips
 of 8 at 2,048, of 4 at 4,096, of 2 at 8,192), above that one limit the
-radix-2 passes of K9, K1, K2, K3 and K5 and the three-pass split of K4a,
-K4b and K6 (``long_plan``), the byte cap on the split's scratch
+radix-2 passes of K2, K3 and K5 and the three-pass split of K4a, K4b, K6,
+K9 and K1 (``long_plan``), the byte cap on the split's scratch
 (``_launch_rows``, ``scene_chunk``), the GCC routes of K1, K2 and K5
 (``gcc_route``: one block a scene, ``gcc_rows``, the mic rows' spectra
 on the split and in one block) on both sides of every fit limit and the
@@ -411,8 +411,8 @@ def test_k1_and_k9_above_2_20_take_k4a_strips(launches, nfft, strips):
     _route("whitened_corr", nfft)
     (k1,) = _named(launches, "gcc_all_pairs")
     assert k1[6] == cf.ROUTE_SPECTRA and k1[7:10] == strips
-    spec0, spec1, cpl0, cpl1 = k1[16:20]
-    assert spec0 == cpl0 and None not in (spec0, spec1) and cpl1 is None
+    spec0, spec1, cpl0 = k1[17:20]
+    assert spec0 == cpl0 and None not in (spec0, spec1) and k1[10] == 0
     (k9,) = _named(launches, "whitened_corr")
     assert k9[5:7] == (strips[0], strips[2])
     launches.clear()
@@ -428,10 +428,11 @@ def test_k1_and_k9_above_2_20_take_k4a_strips(launches, nfft, strips):
 
 # Where each GCC wrapper's (n1, route, column strip, K4a's pass-2 strip,
 # row strip) and its buffers sit in its launch's arguments: K1's (spec0,
-# spec1, cross0, cross1), K2's the same and its (keys, count, part), K5's
-# (packed mic rows 0 and 1, cross0, cross1, spectra) and (keys, count,
-# part).
-GCC_ARGS = {"gcc_all_pairs": (slice(5, 10), slice(16, 20), None),
+# spec1, cross0; no cross1, it never runs the passes; n1a after the row
+# strip), K2's (spec0, spec1, cross0, cross1) and its (keys, count, part),
+# K5's (packed mic rows 0 and 1, cross0, cross1, spectra) and (keys,
+# count, part).
+GCC_ARGS = {"gcc_all_pairs": (slice(5, 10), slice(17, 20), None),
             "gcc_windowed": (slice(5, 10), slice(17, 21), slice(21, 24)),
             "scene_windowed": (slice(9, 14), slice(27, 32), slice(32, 35))}
 # (nfft, the most mics a scene that one block a scene or ``gcc_rows``
@@ -508,13 +509,14 @@ def test_gcc_routes_by_shape(launches, kernel, nfft, mics, fits):
         if kind == cf.ROUTE_SPECTRA:
             assert args[bufs][2] == args[bufs][0]
     else:
-        # (spec0, spec1, cross0, cross1): spec1 the spectra on the
-        # spectra routes, cross0 K4a's packed buffer on the split's.
+        # (spec0, spec1, cross0, cross1; K1 the first three): spec1 the
+        # spectra on the spectra routes, cross0 K4a's packed buffer on the
+        # split's.
         want = {cf.ROUTE_BLOCK: [False] * 4,
                 cf.ROUTE_ROWS: [True, False, True, False],
                 cf.ROUTE_SPECTRA: [True, True, True, False],
                 cf.ROUTE_SPECTRA_BLOCK: [False, True, False, False],
-                cf.ROUTE_PASSES: [True] * 4}[kind]
+                cf.ROUTE_PASSES: [True] * 4}[kind][:len(got)]
         if kind == cf.ROUTE_SPECTRA:
             assert args[bufs][2] == args[bufs][0]
     assert got == want
@@ -527,18 +529,22 @@ def test_no_gcc_route_runs_the_passes_up_to_2_22():
     """For 2 to 128 mics at every power of two from 4 to 2^26 (2^22 before
     the spectra routes reached 2^24, 2^24 before they reached 2^26) the
     GCC of K1, K2 and K5 takes one block, ``gcc_rows`` or the mic rows'
-    spectra, never the radix-2 passes, and neither do the render of K3
-    and K5 (``render_route``) nor K9 (``corr_schedule``); at 2^27 all
-    three take the passes, at every mic count.  ``scene_stages`` reads
-    the route's n1."""
+    spectra, never the radix-2 passes, and neither does the render of K3
+    and K5 (``render_route``); at 2^27 both take the passes, at every mic
+    count, but K9 (``corr_schedule``) and K1 (``gcc_all_route``) never
+    do, at any length: at 2^27 the three-pass split.  ``scene_stages``
+    reads the route's n1."""
     for bits in range(2, 28):
         nfft = 1 << bits
         assert (cf.render_route(nfft).kind == cf.ROUTE_PASSES) == (
             bits == 27)
-        assert (cf.corr_schedule(nfft) == 0) == (bits == 27)
+        assert cf.corr_schedule(nfft) == cf.fft_real_split(nfft)[0] > 0
         for mics in range(2, 129):
             route = cf.gcc_route(nfft, mics)
             assert (route.kind == cf.ROUTE_PASSES) == (bits == 27)
+            k1 = cf.gcc_all_route(nfft, mics)
+            assert k1.kind != cf.ROUTE_PASSES and k1.n1 > 0
+            assert (k1 == route) == (bits < 27)
             assert cf.scene_stages(nfft, mics)[1] == route.n1
             if route.kind == cf.ROUTE_SPECTRA:
                 assert route.n1 == cf.fft_real_split(nfft)[0]
@@ -561,8 +567,8 @@ def test_shapes_that_fit_keep_their_launches(launches, nfft, mics, want):
         assert args[sched] == (want[1], want[0], 0, 0, 0)
         if kernel != "scene_windowed":
             split = want[0] == cf.ROUTE_ROWS
-            assert [b is not None for b in args[bufs]] == [split, False,
-                                                           split, False]
+            got = [b is not None for b in args[bufs]]
+            assert got == [split, False, split, False][:len(got)]
         else:
             assert args[bufs][4] is None
         launches.clear()
@@ -587,9 +593,12 @@ def test_window_partials_follow_the_column_strip():
 
 
 # The spectra routes past 2^24: (n1, column strip, K4a's pass-2 strip, row
-# strip) at 2^25 and 2^26 (one scene of 4 mics, one row pair), the radix-2
-# passes at 2^27.
+# strip) at 2^25 and 2^26 (one scene of 4 mics, one row pair), at 2^27 the
+# radix-2 passes of K2, K3 and K5 and the three-pass split of K9 and K1
+# (``LONG_K9_K1``, with n1a).
 LONG_SPECTRA = {25: (4096, 4, 2, 2), 26: (8192, 2, 2, 2), 27: (0, 0, 0, 0)}
+LONG_K9_K1 = {25: (4096, 4, 2, 2, 0), 26: (8192, 2, 2, 2, 0),
+              27: (16384, 16, 2, 2, 128)}
 
 
 @pytest.mark.parametrize("bits", [25, 26, 27])
@@ -602,8 +611,10 @@ def test_spectra_routes_reach_2_26(launches, monkeypatch, kernel, bits):
     8,192 with strips of 2 (``spectra_plan``; K4a's pass 2 in strips of
     2 at n2 = 8,192), one scratch copy (K1's and K2's packed rows shared
     with the cross rows, the spectra beside them; K5's the same and the
-    render's base rows in its mic rows' buffer); at 2^27 the radix-2
-    passes (n1 = 0, no strip, two copies)."""
+    render's base rows in its mic rows' buffer); at 2^27 K2, K3 and K5
+    the radix-2 passes (n1 = 0, no strip, two copies), K9 and K1 the
+    three-pass split (n1 = 16,384 = 128 x 128, 16 columns and 2 rows a
+    strip, one scratch copy)."""
     nfft = 1 << bits
     if bits > 25:
         _no_tables(monkeypatch)
@@ -611,9 +622,12 @@ def test_spectra_routes_reach_2_26(launches, monkeypatch, kernel, bits):
     (args,) = _named(launches, kernel)
     n1, cs, s2, rs = LONG_SPECTRA[bits]
     kind = cf.ROUTE_SPECTRA if n1 else cf.ROUTE_PASSES
+    if kernel in ("whitened_corr", "gcc_all_pairs"):
+        n1, cs, s2, rs, n1a = LONG_K9_K1[bits]
+        kind = cf.ROUTE_LONG if n1a else cf.ROUTE_SPECTRA
     if kernel == "whitened_corr":
-        assert args[3:7] == (nfft, n1, cs, rs)
-        assert (args[11] is None) == bool(n1)      # z1: the passes' copy
+        assert args[3:8] == (nfft, n1, cs, rs, n1a)
+        assert args[11] is not None                # z: one scratch copy
         return
     if kernel in RENDER_ARGS:
         rsched, bufs, _, _ = RENDER_ARGS[kernel]
@@ -628,8 +642,52 @@ def test_spectra_routes_reach_2_26(launches, monkeypatch, kernel, bits):
         if kernel == "scene_windowed":
             assert got == ([True, False, True, False, True] if n1
                            else [True, True, True, True, False])
+        elif kernel == "gcc_all_pairs":
+            assert got == [True, True, True] and args[10] == n1a
+            assert args[bufs][0] == args[bufs][2]
         else:
             assert got == ([True, True, True, False] if n1 else [True] * 4)
+
+
+@pytest.mark.parametrize("bits,n1a", [(27, 128), (28, 256)])
+@pytest.mark.parametrize("mics", [3, 4])
+def test_k9_and_k1_take_the_three_pass_split_above_2_26(launches, monkeypatch,
+                                                        bits, n1a, mics):
+    """Above 2^26 K9 (three row pairs) and K1 (one scene of 3 or 4 mics: an
+    odd and an even pair count) launch on the three-pass split
+    (``long_plan``): n1 = nfft / 8,192 with its n1a, 16 columns and 2 rows
+    a strip (K1's K4a pass-2 strip 2), one scratch buffer (K9's packed
+    rows; K1's packed mic rows, which the cross rows reuse, beside the
+    spectra), while K2 and K5 keep the radix-2 passes (n1 = 0, two copies
+    of each buffer) at the same shape."""
+    _no_tables(monkeypatch)
+    nfft = 1 << bits
+    n1 = nfft // 8192
+    scratch = []
+    stub = cf._scratch
+    monkeypatch.setattr(cf, "_scratch", lambda rows, n, device: (
+        scratch.append(rows) or stub(rows, n, device)))
+    from pyaudiolocalization_tpu_torch.parallel.sweep import _pairs
+    pi, pj = _pairs(mics)
+    # Never read: the launches are stubbed.
+    spec = torch.empty((3, nfft // 2 + 1), dtype=torch.complex64)
+    mask = torch.empty(nfft // 2 + 1)
+    cf.whitened_corr(spec, spec, mask, nfft)
+    (k9,) = _named(launches, "whitened_corr")
+    assert k9[2:8] == (3, nfft, n1, 16, 2, n1a)
+    assert k9[11] is not None and scratch == [2]
+    scratch.clear()
+    cf.gcc_all_pairs(torch.zeros(1, mics, 1000), pi, pj, nfft, mask)
+    (k1,) = _named(launches, "gcc_all_pairs")
+    assert k1[1:11] == (1, mics, 1000, nfft, n1, cf.ROUTE_LONG, 16, 2, 2,
+                        n1a)
+    spec0, spec1, cross0 = k1[17:20]
+    assert spec0 == cross0 and spec1 is not None
+    assert scratch == [max((mics + 1) // 2, (len(pi) + 1) // 2)]
+    cf.gcc_windowed(torch.zeros(1, mics, 1000), pi, pj, nfft, 1, mask)
+    (k2,) = _named(launches, "gcc_windowed")
+    assert k2[5:10] == (0, cf.ROUTE_PASSES, 0, 0, 0)
+    assert None not in k2[17:21]
 
 
 @pytest.mark.parametrize("bits,scenes,chunks", [
@@ -682,9 +740,9 @@ def test_all_transforming_kernels_leave_the_split_together(
         launches, monkeypatch, bits, n1):
     """All eight kernels that transform (K4a, K4b, K6, K9, K1, K2, K3, K5)
     launch on the split at 2^24 and 2^25 (n1 = 4,096) and 2^26
-    (``FFT_SPLIT_MAX``, n1 = 8,192), one limit; at 2^27 the five of the
-    spectra routes take the radix-2 passes (n1 = 0) together, and K4a, K4b
-    and K6 the three-pass split (n1 = 16,384)."""
+    (``FFT_SPLIT_MAX``, n1 = 8,192), one limit; at 2^27 K2, K3 and K5
+    take the radix-2 passes (n1 = 0) together, and K4a, K4b, K6, K9 and
+    K1 the three-pass split (n1 = 16,384)."""
     nfft = 1 << bits
     length = None
     if bits > 25:          # no table, and short rows, at 2^26 and 2^27
@@ -706,7 +764,8 @@ def test_all_transforming_kernels_leave_the_split_together(
             got = args[7:10]
         want = n1
         if bits == 27 and name in ("fft_real", "bootstrap_peaks",
-                                   "noise_bootstrap_peaks"):
+                                   "noise_bootstrap_peaks", "whitened_corr",
+                                   "gcc_all_pairs"):
             want = 16384
         assert got == (nfft,) + (want,) * (len(got) - 1), name
 

@@ -13,14 +13,15 @@ table read as ``HiTable`` reads it, against ``np.fft`` or the float64
 twins: K4a, K4b, K9 and K3's render.  At 2^26 the maps alone (a model
 there would take twice 2^25's memory).
 
-At 2^27 the spectra routes take the radix-2 passes, and K4a, K4b and K6
-the three-pass split (``long_plan``, ``FFT_LONG_MAX``): its plan and
+At 2^27 K2, K3 and K5 take the radix-2 passes, and K4a, K4b, K6, K9 and
+K1 the three-pass split (``long_plan``, ``FFT_LONG_MAX``): its plan and
 limits at 2^27 to 2^30, one block's maps at 2^27 by index arithmetic,
 and a float64 numpy model of its passes (A and B, K4a's row pass,
-``boot_rows_long``, B' and A' with the maxima) whose factors n1a x n1b x
-n2 are the model's arguments, small, against ``np.fft`` and the float64
-twins.  No n-point table above 2^25 is built here: at 2^27 it holds 2^26
-entries.
+``boot_rows_long``, B' and A' with the maxima; K9's and K1's
+``corr_rows_long`` and A' with the correlations) whose factors n1a x n1b
+x n2 are the model's arguments, small, against ``np.fft``, the float64
+twins and, for K9 and K1, the JAX package's GCC.  No n-point table above
+2^25 is built here: at 2^27 it holds 2^26 entries.
 """
 
 import numpy as np
@@ -128,7 +129,7 @@ def test_passes_above_2_26():
     assert cf._launch_rows(16384, n) == 32
     assert (32 // 2) * n * 8 <= cf.SPLIT_SCRATCH_BYTES
     assert cf._twiddle_lengths(n) == [n, 16384, 8192, 128, 128]
-    assert cf.corr_schedule(n) == 0
+    assert cf.corr_schedule(n) == 16384 and cf._corr_strips(n) == (16, 2)
 
 
 # The three-pass split at 2^27 to 2^30: (n1a, n1b), rows a launch under
@@ -146,10 +147,12 @@ def test_three_pass_plan(bits):
     2^26) with n1 = n1a x n1b; both column passes in strips of 16 columns
     (128 bytes of each row a block reads or writes, whole 32-byte
     sectors), at most ``BLOCK_POINTS`` points and ``SMEM_OPTIN`` bytes a
-    block (``long_cols_max`` 128 more); the row passes in strips of 2 rows
-    at any batch (row k1 and its partner), 163,968 bytes; the launches'
+    block (``long_cols_max`` 128 more; ``long_cols_corr`` pass A's); the
+    row passes in strips of 2 rows at any batch (row k1 and its partner),
+    163,968 bytes (``corr_rows_long`` in 1,024 threads); the launches'
     rows, grids within their limits and the int index products below
-    2^31; the entry points' arguments (n1, strips, n1a)."""
+    2^31; the entry points' arguments (n1, strips, n1a), K9's and K1's
+    too."""
     n = 1 << bits
     (n1a, n1b), rows, (a_smem, b_smem) = THREE[bits]
     n1, n2 = cf.fft_real_split(n)
@@ -158,10 +161,12 @@ def test_three_pass_plan(bits):
         plan = cf.long_plan(n, packed)
         assert (plan.n1a, plan.n1b) == (n1a, n1b)
         assert plan.cols_a == (16, a_smem) and plan.cols_b == (16, b_smem)
-        assert plan.rows == plan.boot_rows == (2, 163_968)
+        assert plan.rows == plan.boot_rows == plan.corr_rows == (2, 163_968)
+        assert plan.corr_cols == plan.cols_a
         assert plan.rows.strip == cf.fft_real_rows_strip(n2, packed)
         for step, length in ((plan.cols_a, n1a), (plan.cols_b, n1b),
-                             (plan.rows, n2), (plan.boot_rows, n2)):
+                             (plan.rows, n2), (plan.boot_rows, n2),
+                             (plan.corr_rows, n2), (plan.corr_cols, n1a)):
             assert step.strip * length <= cf.BLOCK_POINTS
             assert step.smem <= cf.SMEM_OPTIN
         assert plan.cols_a.smem + 128 <= cf.SMEM_OPTIN
@@ -180,7 +185,11 @@ def test_three_pass_plan(bits):
     assert (rows + 1) // 2 <= cf._MAX_GRID_Y
     assert n - 1 < 2 ** 31 and (n2 - 1) * (n1 - 1) < 2 ** 31
     assert (n // 2 + 1) + n // 2 < 2 ** 31
-    assert cf.corr_schedule(n) == 0
+    # K9 and K1: n1, strips (16 columns, 2 rows) and n1a as K4a's;
+    # ``corr_rows_long``'s 1,024 threads, ``long_cols_corr``'s n1a.
+    assert cf.corr_schedule(n) == n1 and cf._corr_strips(n) == (16, 2)
+    assert cf.gcc_all_route(n, 4) == cf.GccRoute(cf.ROUTE_LONG, n1, 16, 2)
+    assert n2 * plan.corr_rows.strip // 16 == 1024 and n1a <= 1024
 
 
 def test_long_limit():
@@ -343,6 +352,247 @@ def test_three_pass_bootstrap_model(factors):
         assert np.abs(peaks - plain).max() < tol
 
 
+def corr_rows_long_model(pairs, mask, n1, n2):
+    """``corr_rows_long`` (K9's and K1's row pass of the three-pass split)
+    over packed cross rows, each as its loader gives it: ``pairs`` yields
+    the spectra rows (a0, b0, a1, b1) (n/2 + 1,) of each packed cross row,
+    a1 and b1 None without a second pair.  Blocks of 2 rows (row b and
+    its partner n1 - b; block 0 rows 0 and n1/2): each mirror-pair task
+    gathers bin q <= n/2, whitens times the band and stores the pair
+    (``store_pair``), then the inverse row DFTs, written back without the
+    conjugate twiddle -> yields each packed cross row (n1, n2).  Asserts
+    that the tasks gather every bin q <= n/2 once and that every row is
+    written once."""
+    n = n1 * n2
+    nb = n1 // 2
+    slot_rows = fs._slot_rows(n1, 2)
+    assert np.array_equal(np.bincount(slot_rows.ravel(), minlength=n1),
+                          np.ones(n1, int))
+    tasks = fs._block_tasks(nb, 2, n1, n2)
+    q = tasks[5]
+    assert np.array_equal(np.bincount(q, minlength=n // 2 + 1),
+                          np.ones(n // 2 + 1, int))
+    for a0, b0, a1, b1 in pairs:
+        ya = fs._whiten(a0[q], b0[q]) * mask[q]
+        yb = (np.zeros_like(ya) if a1 is None
+              else fs._whiten(a1[q], b1[q]) * mask[q])
+        work = np.full((nb, n2, 2), np.nan, complex)
+        fs._store_pairs(work, tasks, ya, yb, n)
+        out = np.full((n1, n2), np.nan, complex)
+        out[slot_rows, :] = fs.block_fft(work, -1.0).transpose(0, 2, 1)
+        yield out
+
+
+def long_corr_cols_model(y, n1a, n1b, n2, strip=fs.S):
+    """B' (the conjugate twiddle, the inverse n1b-point DFTs) and A' with
+    the correlations (``long_cols_corr``: the conjugate W_n1, the inverse
+    n1a-point DFTs, times 1/n) on packed cross rows y (packed, n1, n2) ->
+    (2 * packed, n): the real part of packed row c to row 2c, the
+    imaginary part to row 2c + 1, sample n2 (n1b j1a + j1b) + j2 from slot
+    (j1a, s) of block (j1b, strip); asserts every sample written once."""
+    packed = y.shape[0]
+    n1 = n1a * n1b
+    n = n1 * n2
+    y = y.reshape(packed, n).copy()
+    pos, row, j2 = _long_b_maps(n1a, n1b, n2, strip)
+    lo, hi = _tables_as_read(n, n1, n2)
+    w = np.conj(fs._split_twiddle(lo, hi, j2 * row, n1))
+    cols = fs.block_fft((y[:, pos] * w).reshape(packed, -1, n1b, strip),
+                        -1.0)
+    y[:, pos] = cols.reshape(packed, *pos.shape)
+    t, dst, j1b, k1a = _long_a_maps(n1a, n1b, n2, strip)
+    w1 = np.conj(fs._twiddle(fs._half_table(n1), j1b * k1a))
+    cols = fs.block_fft((y[:, dst] * w1).reshape(packed, -1, n1a, strip),
+                        -1.0)
+    assert np.array_equal(np.bincount(t.ravel(), minlength=n),
+                          np.ones(n, int))
+    out = np.full((packed, 2, n), np.nan)
+    vals = cols.reshape(packed, *t.shape)
+    out[:, 0, t] = vals.real / n
+    out[:, 1, t] = vals.imag / n
+    return out.reshape(2 * packed, n)
+
+
+def long_corr_model(a, b, mask, n1a, n1b, n2):
+    """K9 on the three-pass split n1a x n1b x n2: ``corr_rows_long`` with
+    ``RowPairLoad`` (rows 2c and 2c + 1 of a and b), B' and A' with the
+    correlations -> (rows, n)."""
+    rows = a.shape[0]
+    loads = ((a[2 * c], b[2 * c]) + ((a[2 * c + 1], b[2 * c + 1])
+                                     if 2 * c + 1 < rows else (None, None))
+             for c in range((rows + 1) // 2))
+    y = np.stack(list(corr_rows_long_model(loads, mask, n1a * n1b, n2)))
+    return long_corr_cols_model(y, n1a, n1b, n2)[:rows]
+
+
+def long_gcc_model(sig, pairs_i, pairs_j, mask, n1a, n1b, n2):
+    """K1 on the three-pass split n1a x n1b x n2: K4a's passes A and B and
+    pass 2 (``long_fft_real_model``) into the spectra of rows scene * mics
+    + mic, ``corr_rows_long`` with ``PairIndexLoad`` (packed cross row
+    scene * couples + c reads rows scene * mics + pairs_i[p] and +
+    pairs_j[p], p = 2c, 2c + 1), B' and A' with the correlations ->
+    (scenes, P, n)."""
+    scenes, mics, length = sig.shape
+    n = n1a * n1b * n2
+    spec, writes = long_fft_real_model(sig.reshape(scenes * mics, length),
+                                       n1a, n1b, n2)
+    assert np.array_equal(writes, np.ones_like(writes))
+    pairs = len(pairs_i)
+    couples = (pairs + 1) // 2
+
+    def load(rc):
+        scene, c = divmod(rc, couples)
+        m0 = scene * mics
+        first = (spec[m0 + pairs_i[2 * c]], spec[m0 + pairs_j[2 * c]])
+        if 2 * c + 1 < pairs:
+            return first + (spec[m0 + pairs_i[2 * c + 1]],
+                            spec[m0 + pairs_j[2 * c + 1]])
+        return first + (None, None)
+
+    y = np.stack(list(corr_rows_long_model(map(load, range(scenes * couples)),
+                                           mask, n1a * n1b, n2)))
+    out = long_corr_cols_model(y, n1a, n1b, n2)
+    return out.reshape(scenes, 2 * couples, n)[:, :pairs]
+
+
+def _corr_reference(a, b, mask, n):
+    """irfft(whiten(a * conj(b)) * mask) by np.fft (which drops the
+    imaginary parts of DC and Nyquist, as the kernels and the twin do)."""
+    return np.fft.irfft(fs._whiten(a, b) * mask, n=n)
+
+
+def _mask(n, band):
+    return cf.band_mask(n, band, 16000.0, dtype=torch.float64).numpy()
+
+
+@pytest.mark.parametrize("band", [None, (300.0, 3400.0)])
+@pytest.mark.parametrize("factors", FACTORS)
+def test_three_pass_corr_model(factors, band):
+    """K9 on the three-pass split, one and three row pairs (an odd count:
+    the last packed row's second slot empty), unbanded and band-limited:
+    against irfft(whiten(a * conj(b)) * band) by ``np.fft`` and against
+    ``whitened_corr_plain`` in float64, within 1e-9 of the peak; every
+    bin gathered and every sample written once."""
+    n = int(np.prod(factors))
+    rng = np.random.default_rng(n + 2)
+    mask = _mask(n, band)
+    for rows in (1, 3):
+        a, b = fs._spectra(rng, rows, n), fs._spectra(rng, rows, n)
+        got = long_corr_model(a, b, mask, *factors)
+        want = _corr_reference(a, b, mask, n)
+        tol = 1e-9 * np.abs(want).max()
+        assert np.abs(got - want).max() < tol
+        t = torch.from_numpy
+        plain = cf.whitened_corr_plain(t(a), t(b), t(mask), n).numpy()
+        assert np.abs(got - plain).max() < tol
+
+
+@pytest.mark.parametrize("band", [None, (300.0, 3400.0)])
+@pytest.mark.parametrize("factors", FACTORS)
+def test_three_pass_gcc_model(factors, band):
+    """K1 on the three-pass split, one scene of 3 mics (an odd pair count)
+    and of 4, unbanded and band-limited: K4a's three passes into the mic
+    rows' spectra, the pair-indexed row pass, B' and A' with the
+    correlations, against the pairs' irfft(whiten(rfft(x_i) *
+    conj(rfft(x_j))) * band) by ``np.fft`` and against
+    ``gcc_all_pairs_plain`` in float64, within 1e-9 of the peak."""
+    n = int(np.prod(factors))
+    rng = np.random.default_rng(n + 3)
+    mask = _mask(n, band)
+    for mics in (3, 4):
+        sig = rng.standard_normal((1, mics, n - n // 3))
+        pi, pj = fs._pairs(mics)
+        got = long_gcc_model(sig, pi, pj, mask, *factors)
+        spec = np.fft.rfft(sig, n=n)
+        want = _corr_reference(spec[:, pi], spec[:, pj], mask, n)
+        tol = 1e-9 * np.abs(want).max()
+        assert got.shape == want.shape == (1, len(pi), n)
+        assert np.abs(got - want).max() < tol
+        plain = cf.gcc_all_pairs_plain(torch.from_numpy(sig), pi, pj, n,
+                                       torch.from_numpy(mask)).numpy()
+        assert np.abs(got - plain).max() < tol
+
+
+def test_long_models_match_jax_package():
+    """The three-pass models of K9 and K1 and the port's plain versions
+    (the functions the card's kernels are held to), at the first of
+    ``FACTORS`` (8 x 8 x 64 = 4,096 points), against the JAX package's
+    ``phat_correlation`` (ops/gccphat.py:98) and ``gcc_phat_all_pairs``
+    (:123) on the same seeded float64 rows, within 1e-9 of the peak: one
+    pair unbanded, and 4 mics with the band (300, 3400) Hz at 16 kHz."""
+    import jax.numpy as jnp
+
+    from pyaudiolocalization_tpu.ops import gccphat as jgcc
+    from pyaudiolocalization_tpu_torch.ops import gccphat as tgcc
+    factors = FACTORS[0]
+    n = int(np.prod(factors))
+    rng = np.random.default_rng(4096)
+    sig = rng.standard_normal((4, 3000))
+    want = np.asarray(jgcc.phat_correlation(jnp.asarray(sig[0]),
+                                            jnp.asarray(sig[1]), nfft=n))
+    spec = np.fft.rfft(sig[:2], n=n)
+    got = long_corr_model(spec[:1], spec[1:], _mask(n, None), *factors)[0]
+    tol = 1e-9 * np.abs(want).max()
+    assert np.abs(got - want).max() < tol
+    plain = cf.whitened_corr_plain(
+        torch.from_numpy(spec[:1]), torch.from_numpy(spec[1:]),
+        torch.from_numpy(_mask(n, None)), n)[0].numpy()
+    assert np.abs(plain - want).max() < tol
+    pi, pj = fs._pairs(4)
+    band = (300.0, 3400.0)
+    want = np.asarray(jgcc.gcc_phat_all_pairs(
+        jnp.asarray(sig), np.asarray(pi), np.asarray(pj), nfft=n, band=band,
+        fs=16000.0))
+    got = long_gcc_model(sig[None], pi, pj, _mask(n, band), *factors)[0]
+    tol = 1e-9 * np.abs(want).max()
+    assert got.shape == want.shape == (6, n)
+    assert np.abs(got - want).max() < tol
+    plain = tgcc.gcc_phat_all_pairs(torch.from_numpy(sig), pi, pj, nfft=n,
+                                    band=band, fs=16000.0).numpy()
+    assert np.abs(plain - want).max() < tol
+
+
+def test_corr_rows_long_maps_at_2_27():
+    """K9's and K1's back half at 2^27 (128 x 128 x 8,192), by index
+    arithmetic alone: ``corr_rows_long``'s block b holds rows b and n1 - b
+    (block 0 rows 0 and n1/2), so the n1/2 blocks write every row once,
+    each row whole (8,192 points, 64 KB a row, no twiddle); each of its
+    tasks is a bin q <= n/2 and its mirror n - q in the same block, its
+    tasks' bins n1 apart (the next block's the next bins);
+    ``long_cols_corr``'s block (j1b, strip) writes samples n2 (n1b j1a +
+    j1b) + j2 of both pairs' rows
+    in runs of 16 floats (64 bytes), pass A's load map, one to one; and a
+    4-mic scene's sixth correlation row starts 5 x 2^30 floats in at 2^30,
+    past a 32-bit int (the kernel's offsets are size_t)."""
+    n = 1 << 27
+    plan = cf.long_plan(n)
+    n1a, n1b, S = plan.n1a, plan.n1b, plan.corr_cols.strip
+    n1, n2 = cf.fft_real_split(n)
+    assert plan.corr_rows.strip == 2 and S == 16
+    slot_rows = fs._slot_rows(n1, 2)
+    assert slot_rows.shape == (n1 // 2, 2)
+    assert np.array_equal(np.bincount(slot_rows.ravel(), minlength=n1),
+                          np.ones(n1, int))
+    assert (slot_rows[1:, 0] + slot_rows[1:, 1] == n1).all()
+    assert slot_rows[0].tolist() == [0, n1 // 2]
+    for b in (0, 1, n1 // 4, n1 // 2 - 1):
+        r, k2, row, pr, pk = fs._boot_tasks(b, 2, n1, n2)
+        assert (slot_rows[b, r] == row).all()
+        p = row + n1 * k2
+        pm = slot_rows[b, pr] + n1 * pk
+        assert ((p + pm) % n == 0).all()
+        q = np.where(p <= n // 2, p, pm)
+        assert q.max() <= n // 2 and len(q) == n2 + (b == 0)
+        assert (np.abs(np.diff(q[:n2 // 2 - 1])) == n1).all()
+    strips = n2 // S
+    for blk in (0, 1, strips, n1b * strips - 1):
+        t = _long_a_maps(n1a, n1b, n2, S, [blk])[0][0].reshape(n1a, S)
+        assert (np.diff(t, axis=-1) == 1).all()
+        assert (np.diff(t[:, 0]) == n1b * n2).all()
+    m = 1 << 30
+    assert 5 * m + m - 1 >= 2 ** 31
+
+
 def test_three_pass_maps_at_2_27():
     """One block's maps at 2^27 (128 x 128 x 8,192, strips of 16), by
     index arithmetic alone: pass A's blocks (j1b, strip) load points n2
@@ -411,15 +661,18 @@ def test_spectra_routes_keep_their_limit(bits):
     ``render_route``, ``corr_schedule``, ``scene_stages``, the finish
     spread over the card), the row pass at ``boot_rows``' strip and bytes
     (the n2-point table in device memory at 2^25 and 2^26) and the column
-    pass at the split's column strip; the radix-2 passes at 2^27, where
-    ``spectra_plan`` plans nothing."""
+    pass at the split's column strip; at 2^27, where ``spectra_plan``
+    plans nothing, the radix-2 passes of K2, K3 and K5 and the
+    three-pass split of K9 and K1 (``gcc_all_route``)."""
     n = 1 << bits
     assert not hasattr(cf, "SPECTRA_SPLIT_MAX")
     if bits == 27:
         passes = cf.GccRoute(cf.ROUTE_PASSES, 0, 0, 0)
-        assert cf.render_route(n) == passes and cf.corr_schedule(n) == 0
+        assert cf.render_route(n) == passes and cf.corr_schedule(n) == 16384
         for mics in (2, 3, 4, 8, 16, 64, 128):
             assert cf.gcc_route(n, mics) == passes
+            assert cf.gcc_all_route(n, mics) == cf.GccRoute(
+                cf.ROUTE_LONG, 16384, 16, 2)
             assert cf.scene_stages(n, mics) == (0, 0)
         assert cf.finish_groups(n, 4) == 1
         with pytest.raises(ValueError):
@@ -430,7 +683,7 @@ def test_spectra_routes_keep_their_limit(bits):
     assert cf.render_route(n) == spectra
     assert cf.corr_schedule(n) == n1
     for mics in (2, 3, 4, 8, 16, 64, 128):
-        assert cf.gcc_route(n, mics) == spectra
+        assert cf.gcc_route(n, mics) == cf.gcc_all_route(n, mics) == spectra
         assert cf.scene_stages(n, mics) == (n1, n1)
     assert cf.finish_groups(n, 4) == 128
     for packed in (1, 2, 64):

@@ -154,7 +154,8 @@ def _gcc_stage(route) -> str:
 def route(cfg: dict) -> Dict[str, tuple]:
     """{kernel: (nfft, n1, ..., schedule)} that ``cfg`` launches on the
     card, by the wrappers' own schedule rules (``cuda_fft.render_route``,
-    ``gcc_route``, ``_split_n1``, ``corr_schedule``); the GCCs' tuples
+    ``gcc_route``, K1's ``gcc_all_route``, ``_split_n1``,
+    ``corr_schedule``); the GCCs' tuples
     hold their route's kind after n1."""
     from pyaudiolocalization_tpu_torch.ops import cuda_fft as cf
     from pyaudiolocalization_tpu_torch.ops.fftutils import next_pow2
@@ -178,7 +179,8 @@ def route(cfg: dict) -> Dict[str, tuple]:
                 nfft, rr.n1, gcc.n1, gcc.kind,
                 f"fused {_gcc_stage(rr)}/{_gcc_stage(gcc)}")
     else:
-        out["gcc_all_pairs"] = (nfft, gcc.n1, gcc.kind, _gcc_stage(gcc))
+        k1 = cf.gcc_all_route(nfft, m)
+        out["gcc_all_pairs"] = (nfft, k1.n1, k1.kind, _gcc_stage(k1))
     return out
 
 

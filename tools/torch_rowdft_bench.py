@@ -58,7 +58,9 @@ shapes from N to M points alone, and K1 and K9 only from N <= 2^26; K1 at the
 ``--gcc --long`` times only K1 and K9 (``ROUTE_GCC``) and K2, K3 and K5
 (``ROUTE_SCENES``) at the shapes where the GCC goes through the mic
 rows' spectra, and K3 at the shapes of its render through the base
-rows' spectra, to 2^26 (``--min-nfft N``: those from N points on;
+rows' spectra, to 2^26, and K1 at 4 mics x 2^27 and K9 at one pair at
+2^27 and 2^28 on the three-pass split (``--min-nfft N`` and
+``--max-nfft M``: those from N to M points;
 ``--scene --long``: those of K2, K3 and K5 alone, then chip_smoke.py's
 simulated 20 s, 60 s and 120 s scenes on the fast path, ``long_scenes``,
 K3 at 2^20, 2^22 and 2^23: their wall time cold and warm and their
@@ -237,13 +239,15 @@ GCC_SHAPES = {"api": (None, 4, 44100, 65536, BAND),
               "split24": (None, 4, 8400000, 1 << 24, None),
               "split25": (None, 4, 16800000, 1 << 25, None),
               "split25_8": (None, 8, 16800000, 1 << 25, BAND),
-              "split26": (None, 4, 33000000, 1 << 26, None)}
+              "split26": (None, 4, 33000000, 1 << 26, None),
+              "long27": (None, 4, LONG27, 1 << 27, None)}
 # --gcc --long: the shapes where K1's, K2's and K5's GCC goes through the
 # mic rows' spectra (``cuda_fft.gcc_route``; before, the radix-2 passes):
 # K1 at 11 mics x 65,536, 8 mics x 2^18, 4 mics of an 18 s recording at
 # 2^20, 128 x 16 mics at 4,096 and its shapes above 2^20 (GCC_SHAPES: to
-# 2^26, 4 and 8 mics at 2^23 and 2^25), K9 at its shapes above 2^20
-# (CORR_SHAPES, to 2^26); K2 (with K3 and K5 beside it,
+# 2^26, 4 and 8 mics at 2^23 and 2^25; on the three-pass split 4 mics at
+# 2^27), K9 at its shapes above 2^20 (CORR_SHAPES, to 2^26, and one pair
+# at 2^27 and 2^28 on the three-pass split); K2 (with K3 and K5 beside it,
 # ``SCENE_SHAPES``' layout) at the fast path's 4 mics at 2^20 to 2^26
 # (24,000,000 and 48,000,000 samples at 2^25 and 2^26), where K3's
 # render also goes
@@ -254,7 +258,7 @@ GCC_SHAPES = {"api": (None, 4, 44100, 65536, BAND),
 # finish block a mic row).
 ROUTE_GCC = ("mics11", "spectra18", "spectra20", "spectra_block", "long",
              "long8", "long22", "split23", "split23_8", "split24",
-             "split25", "split25_8", "split26")
+             "split25", "split25_8", "split26", "long27", "long28")
 ROUTE_SCENES = {"fast20": (1, 4, 1, 900000, 800000, 1 << 20, 21, True),
                 "fast21": (1, 4, 1, 1600000, 1500000, 1 << 21, 21, True),
                 "fast22": (1, 4, 1, 3100000, 3000000, 1 << 22, 21, True),
@@ -274,7 +278,9 @@ CORR_SHAPES = {"main": (1, 44100, 65536), "no_gate": (1, 44100, 131072),
                "split23": (1, 4200000, 1 << 23),
                "split24": (1, 8400000, 1 << 24),
                "split25": (1, 16800000, 1 << 25),
-               "split26": (1, 33000000, 1 << 26)}
+               "split26": (1, 33000000, 1 << 26),
+               "long27": (1, LONG27, 1 << 27),
+               "long28": (1, LONG28, 1 << 28)}
 GCC_TOL = 1e-6
 # The split's kernels whose compiler report --long prints (K4a's, K4b's
 # and K6's, then the spectra routes'; --gcc --long and --scene --long
@@ -282,7 +288,7 @@ GCC_TOL = 1e-6
 SPLIT_KERNELS = ("fft_real_cols", "fft_real_rows", "boot_rows", "boot_cols",
                  "long_cols")
 SPECTRA_KERNELS = ("corr_rows", "corr_cols", "window_cols",
-                   "render_spec_rows", "render_cols")
+                   "render_spec_rows", "render_cols", "long_cols_corr")
 
 
 def time_ms(fn, reps: int, loops: int = 3):
@@ -748,10 +754,11 @@ def scene(reps: int = 5, log=print, shapes=None) -> dict:
 
 
 def gcc(reps: int = 5, log=print, min_nfft: int = 0,
-        names=None) -> dict:
+        names=None, max_nfft: int = 0) -> dict:
     """K1 (``gcc_all_pairs``) at ``GCC_SHAPES`` and K9 (``whitened_corr``)
-    at ``CORR_SHAPES`` (those from ``min_nfft`` on; with ``names``, those
-    whose names it holds), each held against its twin within ``GCC_TOL``
+    at ``CORR_SHAPES`` (those from ``min_nfft`` on and up to ``max_nfft``
+    where it is given; with ``names``, those whose names it holds), each
+    held against its twin within ``GCC_TOL``
     (K1 at "chunks" against its float64 run within ``CHUNKS_TOL``; from
     2^20 within ``GCC_TOL`` plus the float32 twin's distance from its
     float64 run): CUDA-event ms per call (median of
@@ -763,8 +770,12 @@ def gcc(reps: int = 5, log=print, min_nfft: int = 0,
     cases = {}
     exact = {}  # the twin in float64 at "chunks"
     wide = {}   # the twin in float64 above 2^20
+    def skip(shape, nfft):
+        return (nfft < min_nfft or (max_nfft and nfft > max_nfft)
+                or (names is not None and shape not in names))
+
     for shape, (scenes, mics, n, nfft, band) in GCC_SHAPES.items():
-        if nfft < min_nfft or (names is not None and shape not in names):
+        if skip(shape, nfft):
             continue
         sig = torch.randn((mics, n) if scenes is None else (scenes, mics, n),
                           generator=gen, device=dev)
@@ -785,7 +796,7 @@ def gcc(reps: int = 5, log=print, min_nfft: int = 0,
         elif nfft >= cf.STAGE_SPLIT_MAX:
             wide[("gcc_all_pairs", shape)] = double
     for shape, (rows, n, nfft) in CORR_SHAPES.items():
-        if nfft < min_nfft or (names is not None and shape not in names):
+        if skip(shape, nfft):
             continue
         spec = cf.fft_real_plain(torch.randn((2 * rows, n), generator=gen,
                                              device=dev), nfft)
@@ -1064,8 +1075,8 @@ def main() -> int:
                     help="with --long or --recording, only the shapes "
                          "and recordings from this many points on")
     ap.add_argument("--max-nfft", type=int, default=0,
-                    help="with --long (K4a, K4b and K6), only the shapes "
-                         "up to this many points")
+                    help="with --long (K4a, K4b and K6) or --gcc --long, "
+                         "only the shapes up to this many points")
     ap.add_argument("--k10", action="store_true",
                     help="time only K10a, K10b and K10c, the full forward "
                          "and the chain at the TPU tool's shapes, with "
@@ -1092,10 +1103,13 @@ def main() -> int:
         if args.long and (args.gcc or args.scene):
             ptxas_report(SPECTRA_KERNELS, log)
             if args.gcc:
-                gcc(args.reps, log, args.min_nfft, names=ROUTE_GCC)
-            scene(args.reps, log, {
-                name: shape for name, shape in ROUTE_SCENES.items()
-                if shape[5] >= args.min_nfft})
+                gcc(args.reps, log, args.min_nfft, names=ROUTE_GCC,
+                    max_nfft=args.max_nfft)
+            shapes = {name: shape for name, shape in ROUTE_SCENES.items()
+                      if shape[5] >= args.min_nfft
+                      and not (args.max_nfft and shape[5] > args.max_nfft)}
+            if shapes:
+                scene(args.reps, log, shapes)
             if args.scene:
                 simulations(smi)
         elif args.long:
@@ -1105,7 +1119,7 @@ def main() -> int:
             boot(2 * args.reps, log, lo, args.max_nfft)
             k6(2 * args.reps, log, lo, args.max_nfft)
             if lo <= cf.FFT_SPLIT_MAX:
-                gcc(args.reps, log, lo)
+                gcc(args.reps, log, lo, max_nfft=cf.FFT_SPLIT_MAX)
         if args.recording:
             recording(smi, args.min_nfft)
         return 0
@@ -1122,7 +1136,7 @@ def main() -> int:
         if args.scene:
             scene(args.reps, log)
         if args.gcc:
-            gcc(args.reps, log)
+            gcc(args.reps, log, max_nfft=cf.FFT_SPLIT_MAX)
         return 0
     run(args.reps, log)
     if args.k4a:
