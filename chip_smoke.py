@@ -58,13 +58,13 @@ in twelve phases:
    ``render_finalize``), and K5 at the fast path's seven (12, bit-equal
    to K3 then K2); and K9 at one pair of each length to 2^26, 2; past
    the split, on the three-pass split, K9's pair at 2^27, 2^28 and 2^30
-   (3) and K1 at 4 mics x 67,000,000 and x 134,000,000 (2^27, 2^28: 6),
-   and on the radix-2 passes at 2^27 K2, K3 and K5 at the fast path's 4
-   mics x 96,000,000 (56, 57, 112); each above 2^20 (K1 from 2^20) held
-   to its float32 twin within the limit plus the twin's own distance
-   from its float64 run, measured in the same run, and up to 2^26 (K9
-   and K1 to 2^30) held to no kernel of the radix-2 passes
-   (``SPECTRA_PASS_KERNELS``);
+   (3), K1 at 4 mics x 67,000,000 and x 134,000,000 (2^27, 2^28: 6), and
+   K2, K3 and K5 at 4 mics x 96,000,000 and x 100,000,000 (2^27, 2^28:
+   6, 10 and 16, ``LONG_SCENE_KERNELS``; K5
+   bit-equal to K3 then K2); each above 2^20 (K1 from 2^20) held to its
+   float32 twin within the limit plus the twin's own distance from its
+   float64 run, measured in the same run, and every traced call held to
+   the kernels of its route (``route_kernels``);
    phase 11's shapes: K1 over segments x subframes, K3 over the moving
    render's 132 frames, K7 at 6 x 4,097 and 28 x 2,049 bins; phase 12's:
    K1 over array calibration's 8 x 4 and 12 x 6 events of 4,800 samples
@@ -87,8 +87,9 @@ in twelve phases:
    the off-centre scene at 20 s, 60 s and 120 s on the fast path (K3 at
    2^20, 2^22 and 2^23 through the base rows' spectra, K2 through the mic
    rows'),
-   cold and warm, with the device time by kernel (no radix-2 pass of K3
-   or K2) and the TDOAs within 0.05 samples of the port's on the CPU;
+   cold and warm, with the device time by kernel (no kernel outside
+   K3's and K2's routes) and the TDOAs within 0.05 samples of the port's
+   on the CPU;
 4b. the options path of ``localize_sound_source``, cold and warm: both
    scenes with the noise-null bootstrap (K6, no permutation) against the
    slice golden, with the noise and permutation nulls of one pair held
@@ -170,17 +171,15 @@ in twelve phases:
    samples of the injected delays), with the resampling's time and peak
    memory, a warm call's wall time and its device time by kernel, then
    the same recording under ``max_expected_delay=None`` (nfft 2^22: K1,
-   K4a and K6 on their split of 8-wide strips) the same way; neither run
-   launches a radix-2 pass of K1; a 4 x 60 s recording at 44.1 kHz under
-   ``max_expected_delay=None`` (nfft 2^23: K4a, K6 and K1 on their split
-   past 2^22) the same way, with no radix-2 pass of K4a, K6 or K1, and
-   4 x 200 s and 4 x 800 s ones (nfft 2^25 and 2^27: K4a, K6 and K1 on
-   the split and on the three-pass split) with no pass kernel of K4a, K6
-   or K1; 4-mic
-   recordings at 44.1 kHz (no resampling) of 16 s on the full core (K1
-   at 2^20) and of 16, 30, 60 and 120 s on the fast path (K2 at 2^20 to
-   2^23), the GCC through the mic rows' spectra, each the same way, none
-   with a radix-2 pass of K1 or K2;
+   K4a and K6 on their split of 8-wide strips) the same way; a 4 x 60 s
+   recording at 44.1 kHz under ``max_expected_delay=None`` (nfft 2^23:
+   K4a, K6 and K1 on their split past 2^22) the same way, and 4 x 200 s
+   and 4 x 800 s ones (nfft 2^25 and 2^27: K4a, K6 and K1 on the split
+   and on the three-pass split); 4-mic recordings at 44.1 kHz (no
+   resampling) of 16 s on the full core (K1 at 2^20) and of 16, 30, 60
+   and 120 s on the fast path (K2 at 2^20 to 2^23), the GCC through the
+   mic rows' spectra, each the same way; no call with a kernel outside
+   its routes' (``route_kernels``);
    ``compat`` on the card (speed of sound, the single pair at the exact
    length by K7 and at a power of two by K4a + K9, the permutation null by
    K4a + K4b within 5 %, the significance metrics, ``noise_reduction`` by
@@ -358,8 +357,8 @@ ADDED = {("delay_sum", "odd"): 1, ("gcc_windowed", "odd"): 1,
          ("gcc_windowed", "fast26"): 15, ("delay_sum", "fast25"): 15,
          ("delay_sum", "fast26"): 15, ("scene_windowed", "fast25"): 15,
          ("scene_windowed", "fast26"): 15, ("gcc_all_pairs", "long27"): 16,
-         ("gcc_windowed", "passes27"): 16, ("delay_sum", "passes27"): 16,
-         ("scene_windowed", "passes27"): 16, ("fft_real", "long27"): 14,
+         ("gcc_windowed", "long27"): 16, ("delay_sum", "long27"): 16,
+         ("scene_windowed", "long27"): 16, ("fft_real", "long27"): 14,
          ("bootstrap_peaks", "long27"): 14,
          ("noise_bootstrap_peaks", "long27"): 14, ("fft_real", "long28"): 17,
          ("fft_real", "long30"): 17, ("bootstrap_peaks", "long28"): 17,
@@ -367,7 +366,8 @@ ADDED = {("delay_sum", "odd"): 1, ("gcc_windowed", "odd"): 1,
          ("noise_bootstrap_peaks", "long28"): 17,
          ("noise_bootstrap_peaks", "long30"): 17,
          ("whitened_corr", "long28"): 18, ("whitened_corr", "long30"): 18,
-         ("gcc_all_pairs", "long28"): 18}
+         ("gcc_all_pairs", "long28"): 18, ("delay_sum", "long28"): 19,
+         ("gcc_windowed", "long28"): 19, ("scene_windowed", "long28"): 19}
 # The sweep across K2's, K3's and K5's scene-chunk boundary: one scene past
 # the 65,535 grid rows of one launch at 4 mics (3 couples), at nfft 512.
 CHUNK_SCENES = 21846
@@ -383,17 +383,17 @@ LONG_DRAWS = 64
 # 2, the n2-point table read from device memory: a 190 s and a 375 s
 # recording) and past 2^26 (the three-pass split of K4a, K4b, K6, K9 and
 # K1: a 1,520 s, a 3,039 s and a 9,070 s recording, 3 device kernels a
-# call of K4a and K9, 5 of K4b and K6, 6 of K1, ``LONG_KERNELS``; the
-# radix-2 passes of K2, K3 and K5 at 2^27); K6's draws at 2^24 that take
-# two launches under the byte cap.  The 2^27 cases of K4a, K4b, K6, K9
-# and K1 draw from the stream and take the shapes that their radix-2
-# passes' cases did, so every later case of that stream keeps its inputs.
+# call of K4a and K9, 5 of K4b and K6, 6 of K1, ``LONG_KERNELS``); K6's
+# draws at 2^24 that take two launches under the byte cap.  The 2^27
+# cases of every kernel draw from the stream and take the shapes that
+# their radix-2 passes' cases did, so every later case of that stream
+# keeps its inputs.
 LONG22 = (2000000, 1 << 22)
 SPLIT23 = (4200000, 1 << 23)
 SPLIT24 = (8400000, 1 << 24)
 SPLIT25 = (16800000, 1 << 25)
 SPLIT26 = (33000000, 1 << 26)
-PASSES27 = (67000000, 1 << 27)
+LONG27 = (67000000, 1 << 27)
 LONG28 = (134000000, 1 << 28)
 LONG30 = (400000000, 1 << 30)
 LONG_KERNELS = {"fft_real": 3, "bootstrap_peaks": 5,
@@ -402,26 +402,56 @@ LONG_KERNELS = {"fft_real": 3, "bootstrap_peaks": 5,
 DRAWS24 = 300
 # Phase 3's cases of the spectra routes: one scene's samples at the fast
 # path's (and the full core's) 2^20 to 2^26 under DEFAULT_CONFIG (18.1,
-# 34.0, 68.0, 136.1, 272.1, 544.2 and 1,088.4 s at 44.1 kHz), and at 2^27
-# (2,176.9 s), past the split, on the radix-2 passes.
+# 34.0, 68.0, 136.1, 272.1, 544.2 and 1,088.4 s at 44.1 kHz), and past
+# the split, on the three-pass split, at 2^27 (2,176.9 s) and, at 2^28, a
+# 2,267.6 s recording under ``max_expected_delay=None`` (next_pow2(2n -
+# 1)): the fast path's 2^28 (past 134,217,728 samples) leaves no room on
+# the card for the twin's Philox noise (int64 words of 4 mic rows) beside
+# the rest, which 140,000,000 samples ran out of.
 FAST_SAMPLES = {1 << 20: 800000, 1 << 21: 1500000, 1 << 22: 3000000,
                 1 << 23: 6000000, 1 << 24: 12000000, 1 << 25: 24000000,
-                1 << 26: 48000000, 1 << 27: 96000000}
-# Device kernels of the spectra routes' radix-2 passes (K2's, K3's and
-# K5's at n1 = 0; K9's and K1's, ``corr_cross`` and ``split_pairs``,
-# until the three-pass split took their place above 2^26: a parent tree's
-# trace still names them): none may run on their split, to 2^26, nor in
-# K9 or K1 to 2^30.
-SPECTRA_PASS_KERNELS = ("pack_rows", "stockham_pass", "gcc_cross",
-                        "split_pairs", "last_pass_window", "render_mix",
-                        "corr_cross")
-# Device kernels a call runs at 2^27 on the radix-2 passes (one 4-mic
-# scene; 27 passes a transform, 26 where the last is fused): K2 the
-# packing, 27 forward passes, the cross spectra, 26 inverse passes and
-# the last with the window; K3 the packing, 27 passes, the mix, 27
-# passes, the finalize; K5 K3's 57 and K2's 55 after its packing.
-PASSES27_KERNELS = {"gcc_windowed": 56, "delay_sum": 57,
-                    "scene_windowed": 112}
+                1 << 26: 48000000, 1 << 27: 96000000, 1 << 28: 100000000}
+# Device kernels a call of K2, K3 and K5 runs on the three-pass split
+# (one 4-mic scene with the finalize and the noise): K2 K4a's three
+# passes into the mic rows' spectra, ``corr_rows_long``, B' and
+# ``long_cols_window``; K3 K4a's three into the base rows' spectra,
+# ``render_spec_rows_long``, B', ``long_cols_render`` and 4 steps of
+# ``finish_spread``; K5 K3's ten, then K2's six.
+LONG_SCENE_KERNELS = {"gcc_windowed": 6, "delay_sum": 10,
+                      "scene_windowed": 16}
+# The port's kernels (``__global__`` names) that each route may run
+# (``route_kernels``): the render's of K3 and K5 and its finish, the GCC
+# routes' of K1, K2 and K5, and the schedules of K4a, K4b (K6) and K9 by
+# their n1 (one block, the split, the three-pass split).  A traced call
+# that runs another kernel of the port fails.
+FINISH_KERNELS = ("render_finalize", "finish_spread")
+RENDER_KERNELS = {
+    "block": ("render_block",),
+    "rows": ("fft_real_cols", "render_rows", "render_cols"),
+    "spectra": ("fft_real_cols", "fft_real_rows", "render_spec_rows",
+                "render_cols"),
+    "long": ("long_cols_a", "long_cols_b", "fft_real_rows",
+             "render_spec_rows_long", "long_cols_render")}
+GCC_KERNELS = {
+    "block": ("gcc_block", "window_block"),
+    "rows": ("fft_real_cols", "gcc_rows", "corr_cols", "window_cols"),
+    "spectra": ("fft_real_cols", "fft_real_rows", "corr_rows", "corr_cols",
+                "window_cols"),
+    "spectra block": ("fft_real_block", "corr_block"),
+    "long": ("long_cols_a", "long_cols_b", "fft_real_rows", "corr_rows_long",
+             "long_cols_corr", "long_cols_window")}
+SCHEDULE_KERNELS = {
+    "fft_real": {"block": ("fft_real_block",),
+                 "split": ("fft_real_cols", "fft_real_rows"),
+                 "long": ("long_cols_a", "long_cols_b", "fft_real_rows")},
+    "bootstrap_peaks": {"block": ("boot_block",),
+                        "split": ("fft_real_cols", "boot_rows", "boot_cols"),
+                        "long": ("long_cols_a", "long_cols_b",
+                                 "boot_rows_long", "long_cols_max")},
+    "whitened_corr": {"block": ("corr_block",),
+                      "split": ("corr_rows", "corr_cols"),
+                      "long": ("corr_rows_long", "long_cols_b",
+                               "long_cols_corr")}}
 # The card's name and power limit (nvidia-smi), set by main().
 CARD = ["not read"]
 # Device kernels a call of K3 or K2 runs at phase 3's one-block shapes
@@ -527,6 +557,24 @@ def scene_bound(name, scenes, mics, paths, total, out, nfft, wq, noise):
                  render_ops(scenes, mics, paths, nfft, out, 1) + gcc)
 
 
+def lean(cf, nfft, fn):
+    """``fn``, above ``FFT_SPLIT_MAX`` after giving the allocator's cached
+    blocks back to the card: a render's float32 twin at 2^28 (the Philox
+    noise's int64 words of every mic row) needs most of the card, and the
+    blocks that the kernel's buffers and the twin's last call left cached
+    split it past use (its second call ran out of memory with 12 GiB
+    cached unused).  Its time then includes the release, a few ms of the
+    twin's ~700."""
+    import torch
+    if nfft <= cf.FFT_SPLIT_MAX:
+        return fn
+
+    def call():
+        torch.cuda.empty_cache()
+        return fn()
+    return call
+
+
 def compare(name, kernel_fn, plain_fn, tol, reps, least, scale_by_max=False,
             library_fn=None):
     """Kernel vs plain on the same inputs: the max abs error, checked
@@ -569,8 +617,8 @@ def compare(name, kernel_fn, plain_fn, tol, reps, least, scale_by_max=False,
 def kernel_phase(cf, torch):
     """Phase 3: every kernel against its plain version on the card, at the
     main paths' shapes ("main", recorded) and edge shapes.  Tolerances are
-    float32's: transforms of log2(nfft) radix-2 passes in the kernel and in
-    cuFFT, on values bounded by 1 (correlations, peaks, finalized renders)
+    float32's: transforms of log2(nfft) stages in the kernel and in cuFFT,
+    on values bounded by 1 (correlations, peaks, finalized renders)
     or relative to the spectrum's peak (fft_real); noisy renders add the
     Philox normals, equal integers in both, float32 log/cos within a few
     units in the last place."""
@@ -624,26 +672,21 @@ def kernel_phase(cf, torch):
     device_ms = bench.device_ms
     twin_rows = bench.twin_rows
 
-    def log_device(name, fn, calls=5, kernels=None, nfft=None,
-                   long=False):
+    def log_device(name, fn, calls=5, kernels=None, allowed=None):
         """Logs the device time and kernels per call (``torch.profiler``);
         raises unless a call runs ``kernels`` device kernels, where
-        given, and, given the nfft of a spectra route's call on its split
-        (up to ``FFT_SPLIT_MAX``; with ``long``, K9's and K1's on the
-        three-pass split above), where one of them is a kernel of its
-        radix-2 passes (``SPECTRA_PASS_KERNELS``)."""
+        given, and, given the kernels of the call's routes
+        (``route_kernels``), where it runs another of the port's."""
         dev_k = traced(bench, fn, calls, kernels)
         log(f"{name} device time per call: {dev_k['total']:.4f} ms in "
             f"{dev_k['kernels']:g} kernels ({bench._split(dev_k)})")
         if kernels is not None and dev_k["kernels"] != kernels:
             raise AssertionError(f"{name}: {dev_k['kernels']:g} device "
                                  f"kernels a call, want {kernels}")
-        if nfft is not None and (long or nfft <= cf.FFT_SPLIT_MAX):
-            passes = [k for k in dev_k
-                      if any(p in k for p in SPECTRA_PASS_KERNELS)]
-            if passes:
-                raise AssertionError(f"{name} ran radix-2 pass kernels on "
-                                     f"its split: {passes}")
+        stray = outside_route(dev_k, allowed or ())
+        if allowed is not None and stray:
+            raise AssertionError(f"{name} ran kernels outside its route: "
+                                 f"{stray}")
 
     def twin_gap(name, plain, *inputs):
         """max |plain(inputs) - plain(inputs widened to float64)|: the
@@ -720,7 +763,8 @@ def kernel_phase(cf, torch):
         log_device(f"gcc_all_pairs[{tag}] (schedule n1="
                    f"{cf.gcc_route(nfft, m).n1})",
                    lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
-                   kernels=1)
+                   kernels=1,
+                   allowed=route_kernels(cf, "gcc_all_pairs", nfft, m))
     mv = serving.MOVING
     budget, lead_s = serving.moving_margins(mv["start"], mv["velocity"],
                                             serving.TETRA, mv["duration"],
@@ -745,7 +789,8 @@ def kernel_phase(cf, torch):
                               None, 0))
     log_device("delay_sum[moving]",
                lambda: cf.delay_sum(base, tau, gains, nfft, total, fade,
-                                    False), kernels=1)
+                                    False), kernels=1,
+               allowed=route_kernels(cf, "delay_sum", nfft))
     for tag, shape in {"stream": (6, 4097), "stream28": (28, 2049)}.items():
         draw("whiten", tag)
         spec = torch.complex(randn(*shape), randn(*shape)).contiguous()
@@ -778,7 +823,8 @@ def kernel_phase(cf, torch):
                 least=bound(nbytes, gcc_ops(b, m, len(pi), nfft)))
         log_device(f"gcc_all_pairs[{tag}] ({route_note(cf, nfft, m)})",
                    lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
-                   kernels=gcc_kernels(cf, nfft, m))
+                   kernels=gcc_kernels(cf, nfft, m),
+                   allowed=route_kernels(cf, "gcc_all_pairs", nfft, m))
 
     # K3: render.  Main paths: the sweep's split render (512 scenes, 1
     # path, noise, 44,356 padded samples), the single scene's (22 paths =
@@ -789,8 +835,9 @@ def kernel_phase(cf, torch):
     # relative to their peak.  Up to 4,096 points (the edge, the trio
     # sweep's 8-mic render, the short sweep's and the chunks at 512) K3 is
     # one device kernel a launch (``render_block``), one launch a scene
-    # chunk.  The fast path's one scene of 4 mics at 2^27 (2,177 s) runs
-    # past the split, on the radix-2 passes.
+    # chunk.  One scene of 4 mics at 2^27 (2,177 s) and 2^28 (2,268 s)
+    # runs past the split, on the three-pass split (10 device kernels,
+    # ``LONG_SCENE_KERNELS``).
     for tag, (b, m, paths, total, out, nfft, noise, fin) in {
             "main": (SWEEP_SCENES, 4, 1, 44356, N, NFFT, True, True),
             "scene": (1, 4, 22, 50292, N, NFFT, True, True),
@@ -826,8 +873,10 @@ def kernel_phase(cf, torch):
                        True, True),
             "fast26": (1, 4, 1, 49600000, FAST_SAMPLES[1 << 26], 1 << 26,
                        True, True),
-            "passes27": (1, 4, 1, 99200000, FAST_SAMPLES[1 << 27], 1 << 27,
-                         True, True)}.items():
+            "long27": (1, 4, 1, 99200000, FAST_SAMPLES[1 << 27], 1 << 27,
+                       True, True),
+            "long28": (1, 4, 1, 104000000, FAST_SAMPLES[1 << 28], 1 << 28,
+                       True, True)}.items():
         draw("delay_sum", tag)
         base, tau, gains, snr, seeds, fade = scene_inputs(b, m, paths,
                                                           total, out)
@@ -837,20 +886,22 @@ def kernel_phase(cf, torch):
             f"out={out} noise={noise} finalize={fin}",
             lambda: cf.delay_sum(base, tau, gains, nfft, out, fade, fin,
                                  *nz),
-            lambda: cf.delay_sum_plain(base, tau, gains, nfft, out, fade,
-                                       fin, *nz),
-            tol=2e-5, reps=3 if b > 1 or tag == "passes27" else 20,
+            lean(cf, nfft, lambda: cf.delay_sum_plain(
+                base, tau, gains, nfft, out, fade, fin, *nz)),
+            tol=2e-5, reps=3 if b > 1 or nfft > cf.FFT_SPLIT_MAX else 20,
             scale_by_max=not fin,
             least=scene_bound("delay_sum", b, m, paths, total, out, nfft,
                               None, noise))
         if tag in ("main", "scene", "reverb", "trio", "short", "chunks",
-                   "passes27") or tag in RENDER_SPECTRA_KERNELS:
+                   "long27", "long28") or tag in RENDER_SPECTRA_KERNELS:
             log_device(f"delay_sum[{tag}] ({render_note(cf, nfft, b * m)})",
                        lambda: cf.delay_sum(base, tau, gains, nfft, out,
                                             fade, fin, *nz),
-                       kernels=PASSES27_KERNELS["delay_sum"]
-                       if tag == "passes27" else ONE_BLOCK_KERNELS.get(tag)
-                       or RENDER_SPECTRA_KERNELS.get(tag), nfft=nfft)
+                       kernels=LONG_SCENE_KERNELS["delay_sum"]
+                       if nfft > cf.FFT_SPLIT_MAX
+                       else ONE_BLOCK_KERNELS.get(tag)
+                       or RENDER_SPECTRA_KERNELS.get(tag),
+                       allowed=route_kernels(cf, "delay_sum", nfft, m))
         if tag == "chunks":
             per_call(cf, "delay_sum", lambda: cf.delay_sum(
                 base, tau, gains, nfft, out, fade, fin, *nz), 2)
@@ -905,7 +956,7 @@ def kernel_phase(cf, torch):
             "split25": (None, 4) + SPLIT25 + (None,),
             "split25_8": (None, 8) + SPLIT25 + ((300.0, 3400.0),),
             "split26": (None, 4) + SPLIT26 + (None,),
-            "long27": (None, 4) + PASSES27 + (None,),
+            "long27": (None, 4) + LONG27 + (None,),
             "long28": (None, 4) + LONG28 + (None,)}.items():
         draw("gcc_all_pairs", tag)
         pi, pj = pairs(m)
@@ -915,7 +966,7 @@ def kernel_phase(cf, torch):
         scenes = b or 1
         nbytes = 4 * (scenes * (m * length + len(pi) * nfft) + nfft // 2 + 1)
         tol = 1e-6
-        if nfft > PASSES27[1]:
+        if nfft > LONG27[1]:
             tol += max(twin_gap(f"gcc_all_pairs[{tag}] pair {p}",
                                 lambda x, w, p=p: cf.gcc_all_pairs_plain(
                                     x, pi[p:p + 1], pj[p:p + 1], nfft, w),
@@ -930,11 +981,10 @@ def kernel_phase(cf, torch):
             tol=tol,
             reps=20 if scenes == 1 and nfft <= cf.FFT_SPLIT_MAX else 3,
             least=bound(nbytes, gcc_ops(scenes, m, len(pi), nfft)))
-        log_device(f"gcc_all_pairs[{tag}] "
-                   f"({route_note(cf, nfft, m, k1=True)})",
+        log_device(f"gcc_all_pairs[{tag}] ({route_note(cf, nfft, m)})",
                    lambda: cf.gcc_all_pairs(sig, pi, pj, nfft, mask),
-                   kernels=gcc_kernels(cf, nfft, m, k1=True), nfft=nfft,
-                   long=True)
+                   kernels=gcc_kernels(cf, nfft, m),
+                   allowed=route_kernels(cf, "gcc_all_pairs", nfft, m))
         if tag == "main":
             results["gcc_all_pairs"] = res
         del sig
@@ -948,9 +998,10 @@ def kernel_phase(cf, torch):
     # a launch, ``window_block``).  Through the mic rows' spectra: the
     # api fast path's single scene of 4 mics at 2^20 to 2^26 (18 s to
     # 1,088 s recordings; 4 device kernels a call, ``window_cols`` last),
-    # and at 2^27 (2,177 s) past the split on the radix-2 passes
-    # and 512 scenes of 12 mics at 4,096 (2 device kernels, ``corr_block``
-    # with the window's epilogue).
+    # and at 2^27 and 2^28 (2,177 s and 2,268 s) past the split on the
+    # three-pass split (6, ``long_cols_window`` last), and 512 scenes of
+    # 12 mics at 4,096 (2 device kernels, ``corr_block`` with the window's
+    # epilogue).
     for tag, (b, m, length, nfft, wq) in {
             "main": (SWEEP_SCENES, 4, N, NFFT, 6),
             "api": (1, 4, N, NFFT, 21),
@@ -967,20 +1018,28 @@ def kernel_phase(cf, torch):
             "fast24": (1, 4, FAST_SAMPLES[1 << 24], 1 << 24, 21),
             "fast25": (1, 4, FAST_SAMPLES[1 << 25], 1 << 25, 21),
             "fast26": (1, 4, FAST_SAMPLES[1 << 26], 1 << 26, 21),
-            "passes27": (1, 4, FAST_SAMPLES[1 << 27], 1 << 27, 21)}.items():
+            "long27": (1, 4, FAST_SAMPLES[1 << 27], 1 << 27, 21),
+            "long28": (1, 4, FAST_SAMPLES[1 << 28], 1 << 28, 21)}.items():
         draw("gcc_windowed", tag)
         pi, pj = pairs(m)
         sig = randn(b, m, length).contiguous()
         mask = cf.band_mask(nfft, (300.0, 3400.0), FS, device=dev)
         p = len(pi)
-        new_route = tag.startswith(("fast", "spectra"))
+        new_route = tag.startswith(("fast", "spectra", "long"))
         tol = 2e-6 if tag == "chunks" else 1e-6
-        if nfft > cf.STAGE_SPLIT_MAX:
+        if nfft > cf.FFT_SPLIT_MAX:
+            # Pair by pair: the float64 twin of every pair at once would
+            # take ~60 GB at 2^28.
+            tol += max(twin_gap(f"gcc_windowed[{tag}] pair {q}",
+                                lambda x, w, q=q: cf.gcc_windowed_plain(
+                                    x, pi[q:q + 1], pj[q:q + 1], nfft, wq,
+                                    w)[0], sig, mask) for q in range(p))
+        elif nfft > cf.STAGE_SPLIT_MAX:
             tol += twin_gap(f"gcc_windowed[{tag}]", lambda x, w: (
                 cf.gcc_windowed_plain(x, pi, pj, nfft, wq, w)[0]), sig, mask)
         # "chunks": float32 rounding over 131,076 rows of 512 lags needs
         # 2e-6, and its margin is small.  `window_block` reads 8.7e-7
-        # from the float32 twin on these inputs (the radix-2 passes 1.6e-6)
+        # from the float32 twin on these inputs
         # but 2.1e-6 on the A/B tool's inputs of one run, where neither
         # side is exact: at this shape the float32 twin lies up to 1.5e-6
         # from its float64 run, the kernel up to 1.2e-6
@@ -989,17 +1048,15 @@ def kernel_phase(cf, torch):
             f"gcc_windowed[{tag}] B={b} M={m} P={p} nfft={nfft} wq={wq}",
             lambda: cf.gcc_windowed(sig, pi, pj, nfft, wq, mask),
             lambda: cf.gcc_windowed_plain(sig, pi, pj, nfft, wq, mask),
-            tol=tol, reps=3 if b > 1 or tag == "passes27" else 20,
+            tol=tol, reps=3 if b > 1 or nfft > cf.FFT_SPLIT_MAX else 20,
             least=scene_bound("gcc_windowed", b, m, 0, 0, length, nfft, wq,
                               0))
-        if tag in ("main", "api", "short", "chunks", "passes27") or (
-                new_route):
+        if tag in ("main", "api", "short", "chunks") or new_route:
             log_device(f"gcc_windowed[{tag}] ({route_note(cf, nfft, m)})",
                        lambda: cf.gcc_windowed(sig, pi, pj, nfft, wq, mask),
                        kernels=gcc_kernels(cf, nfft, m) if new_route
-                       else PASSES27_KERNELS["gcc_windowed"]
-                       if tag == "passes27" else ONE_BLOCK_KERNELS.get(tag),
-                       nfft=nfft)
+                       else ONE_BLOCK_KERNELS.get(tag),
+                       allowed=route_kernels(cf, "gcc_windowed", nfft, m))
         if tag == "chunks":
             per_call(cf, "gcc_windowed", lambda: cf.gcc_windowed(
                 sig, pi, pj, nfft, wq, mask), 2)
@@ -1029,7 +1086,7 @@ def kernel_phase(cf, torch):
             "long": (2, LONG_SAMPLES, LONG_NFFT),
             "long22": (1,) + LONG22, "split23": (1,) + SPLIT23,
             "split24": (1,) + SPLIT24, "split25": (1,) + SPLIT25,
-            "split26": (1,) + SPLIT26, "long27": (1,) + PASSES27,
+            "split26": (1,) + SPLIT26, "long27": (1,) + LONG27,
             "long28": (1,) + LONG28, "long30": (1,) + LONG30}.items():
         draw("fft_real", tag)
         x = randn(rows_n, length).contiguous()
@@ -1052,7 +1109,8 @@ def kernel_phase(cf, torch):
         if tag.startswith(("long", "split")):
             log_device(f"fft_real[{tag}]", lambda: cf.fft_real(x, nfft),
                        kernels=LONG_KERNELS["fft_real"]
-                       if nfft > cf.FFT_SPLIT_MAX else 2)
+                       if nfft > cf.FFT_SPLIT_MAX else 2,
+                       allowed=route_kernels(cf, "fft_real", nfft))
         if tag == "main":
             results["fft_real"] = res
         del x
@@ -1089,7 +1147,7 @@ def kernel_phase(cf, torch):
             "long1000": (NULL_DRAWS, LONG_SAMPLES, LONG_NFFT),
             "long22": (3,) + LONG22, "split23": (3,) + SPLIT23,
             "split24": (3,) + SPLIT24, "split25": (3,) + SPLIT25,
-            "split26": (3,) + SPLIT26, "long27": (3,) + PASSES27,
+            "split26": (3,) + SPLIT26, "long27": (3,) + LONG27,
             "long28": (3,) + LONG28, "long30": (2,) + LONG30}.items():
         draw("bootstrap_peaks", tag)
         sig2 = randn(length)
@@ -1108,7 +1166,8 @@ def kernel_phase(cf, torch):
                         rows_n * (2 * _rfft_ops(nfft) + (nfft // 2) * 15)))
         log_device(f"bootstrap_peaks[{tag}]",
                    lambda: cf.bootstrap_peaks(s1, rows, nfft),
-                   kernels=long_kernels("bootstrap_peaks", tag, nfft))
+                   kernels=long_kernels("bootstrap_peaks", tag, nfft),
+                   allowed=route_kernels(cf, "bootstrap_peaks", nfft))
         if tag == "main":
             results["bootstrap_peaks"] = res
         del rows
@@ -1130,7 +1189,7 @@ def kernel_phase(cf, torch):
             "long22": (3,) + LONG22, "split23": (3,) + SPLIT23,
             "split24": (3,) + SPLIT24, "draws24": (DRAWS24,) + SPLIT24,
             "split25": (3,) + SPLIT25, "split26": (3,) + SPLIT26,
-            "long27": (3,) + PASSES27, "long28": (3,) + LONG28,
+            "long27": (3,) + LONG27, "long28": (3,) + LONG28,
             "long30": (2,) + LONG30}.items():
         draw("noise_bootstrap_peaks", tag)
         s1 = cf.fft_real_plain(randn(1, n_samp), nfft)[0].contiguous()
@@ -1158,7 +1217,8 @@ def kernel_phase(cf, torch):
             "same draws")
         log_device(f"noise_bootstrap_peaks[{tag}]",
                    lambda: cf.noise_bootstrap_peaks(s1, seeds, n_samp, nfft),
-                   kernels=long_kernels("noise_bootstrap_peaks", tag, nfft))
+                   kernels=long_kernels("noise_bootstrap_peaks", tag, nfft),
+                   allowed=route_kernels(cf, "noise_bootstrap_peaks", nfft))
         if tag == "main":
             results["noise_bootstrap_peaks"] = res
     # The cases above 2^22 leave tens of GB in the allocator's cache (the
@@ -1220,7 +1280,7 @@ def kernel_phase(cf, torch):
                                         "split24": (1,) + SPLIT24,
                                         "split25": (1,) + SPLIT25,
                                         "split26": (1,) + SPLIT26,
-                                        "long27": (1,) + PASSES27,
+                                        "long27": (1,) + LONG27,
                                         "long28": (1,) + LONG28,
                                         "long30": (1,) + LONG30}.items():
         draw("whitened_corr", tag)
@@ -1230,7 +1290,7 @@ def kernel_phase(cf, torch):
         mask = cf.band_mask(nfft, None, None, device=dev)
         bins = nfft // 2 + 1
         tol = 1e-6
-        if nfft > PASSES27[1]:
+        if nfft > LONG27[1]:
             tol += corr_twin_gap(f"whitened_corr[{tag}]", a, b, mask, nfft)
         elif nfft > cf.STAGE_SPLIT_MAX:
             tol += twin_gap(f"whitened_corr[{tag}]", lambda x, y, w: (
@@ -1246,7 +1306,8 @@ def kernel_phase(cf, torch):
         log_device(f"whitened_corr[{tag}] (schedule n1={n1})",
                    lambda: cf.whitened_corr(a, b, mask, nfft),
                    kernels=1 if n1 == 1 else LONG_KERNELS["whitened_corr"]
-                   if nfft > cf.FFT_SPLIT_MAX else 2, nfft=nfft, long=True)
+                   if nfft > cf.FFT_SPLIT_MAX else 2,
+                   allowed=route_kernels(cf, "whitened_corr", nfft))
         if tag == "main":
             results["whitened_corr"] = res
         del a, b
@@ -1264,7 +1325,7 @@ def kernel_phase(cf, torch):
     # finished signals, ``corr_block``: 3 device kernels) and one scene of
     # 6 mics at 2^18 (the render's split and finalize, then the GCC's 4: 8);
     # the fast path's one scene of 4 mics at 2^20 to 2^26 (12), and at 2^27
-    # past the split, on the radix-2 passes (112).
+    # and 2^28 past the split, on the three-pass split (16).
     # Fused and split must agree to 1e-6 with equal argmax: they run the
     # same stage code; at the short sweep's shape, across the chunks and
     # on the spectra routes to the bit.
@@ -1290,8 +1351,10 @@ def kernel_phase(cf, torch):
                        21),
             "fast26": (1, 4, 1, 49600000, FAST_SAMPLES[1 << 26], 1 << 26,
                        21),
-            "passes27": (1, 4, 1, 99200000, FAST_SAMPLES[1 << 27], 1 << 27,
-                         21)}.items():
+            "long27": (1, 4, 1, 99200000, FAST_SAMPLES[1 << 27], 1 << 27,
+                       21),
+            "long28": (1, 4, 1, 104000000, FAST_SAMPLES[1 << 28], 1 << 28,
+                       21)}.items():
         draw("scene_windowed", tag)
         pi, pj = pairs(m)
         base, tau, gains, snr, seeds, fade = scene_inputs(b, m, paths,
@@ -1302,8 +1365,9 @@ def kernel_phase(cf, torch):
             f"out={out} wq={wq}",
             lambda: cf.scene_windowed(base, tau, gains, pi, pj, nfft, out,
                                       wq, fade, mask, snr, seeds),
-            lambda: cf.scene_windowed_plain(base, tau, gains, pi, pj, nfft,
-                                            out, wq, fade, mask, snr, seeds),
+            lean(cf, nfft, lambda: cf.scene_windowed_plain(
+                base, tau, gains, pi, pj, nfft, out, wq, fade, mask, snr,
+                seeds)),
             tol=1e-5, reps=3,
             least=scene_bound("scene_windowed", b, m, paths, total, out,
                               nfft, wq, 1))
@@ -1318,7 +1382,8 @@ def kernel_phase(cf, torch):
         if gap > 1e-6:
             raise AssertionError(f"scene_windowed[{tag}] departs from the "
                                  f"split kernels by {gap:.3e}")
-        if tag in ("chunks", "short") or tag in SPECTRA_K5_KERNELS:
+        if (tag in ("chunks", "short") or tag in SPECTRA_K5_KERNELS
+                or nfft > cf.FFT_SPLIT_MAX):
             if not all(torch.equal(a, c) for a, c in zip(fused, split)):
                 raise AssertionError(f"scene_windowed[{tag}] is not "
                                      "bit-equal to delay_sum -> gcc_windowed")
@@ -1328,17 +1393,18 @@ def kernel_phase(cf, torch):
             per_call(cf, "scene_windowed", lambda: cf.scene_windowed(
                 base, tau, gains, pi, pj, nfft, out, wq, fade, mask, snr,
                 seeds), 2)
-        if tag in ("main", "api", "short", "chunks", "passes27") or (
+        if tag in ("main", "api", "short", "chunks", "long27", "long28") or (
                 tag in SPECTRA_K5_KERNELS):
             log_device(f"scene_windowed[{tag}] ({route_note(cf, nfft, m)}; "
                        f"{render_note(cf, nfft, b * m)})",
                        lambda: cf.scene_windowed(base, tau, gains, pi, pj,
                                                  nfft, out, wq, fade, mask,
                                                  snr, seeds), 3,
-                       PASSES27_KERNELS["scene_windowed"]
-                       if tag == "passes27" else SPECTRA_K5_KERNELS.get(tag)
+                       LONG_SCENE_KERNELS["scene_windowed"]
+                       if nfft > cf.FFT_SPLIT_MAX
+                       else SPECTRA_K5_KERNELS.get(tag)
                        or 2 * ONE_BLOCK_KERNELS.get(tag, 0) or None,
-                       nfft=nfft)
+                       route_kernels(cf, "scene_windowed", nfft, m))
         if tag == "main":
             results["scene_windowed"] = res
     return results
@@ -1375,48 +1441,71 @@ def table_note(cf, nfft, device):
         f"cache in {time.perf_counter() - start:.3f} s wall {card_note()}")
 
 
-def _gcc_route(cf, nfft, mics, k1):
-    """K1's route (``cuda_fft.gcc_all_route``) where ``k1`` and the tree
-    has it, else K2's (``gcc_route``)."""
-    if k1 and hasattr(cf, "gcc_all_route"):
-        return cf.gcc_all_route(nfft, mics)
-    return cf.gcc_route(nfft, mics)
-
-
-def gcc_kernels(cf, nfft, mics, k1=False):
-    """Device kernels a call of K2 (K1 where ``k1``) runs at nfft with
-    ``mics`` mics a scene, by its route (``cuda_fft.gcc_route``; K1's
-    ``gcc_all_route``): 1 in one block a scene, 3 on ``gcc_rows`` (K4a's
-    column pass, the row pass, the column pass), 4 through the mic rows'
-    spectra on the split (K4a's two passes, K9's row pass, the column
-    pass), 2 through them in one block (K4a's ``fft_real_block``,
-    ``corr_block``), 6 on K1's three-pass split (``LONG_KERNELS``); None
-    on the passes."""
-    kind = _gcc_route(cf, nfft, mics, k1).kind
+def gcc_kernels(cf, nfft, mics):
+    """Device kernels a call of K1 or K2 runs at nfft with ``mics`` mics a
+    scene, by its route (``cuda_fft.gcc_route``): 1 in one block a scene,
+    3 on ``gcc_rows`` (K4a's column pass, the row pass, the column pass),
+    4 through the mic rows' spectra on the split (K4a's two passes, K9's
+    row pass, the column pass), 2 through them in one block (K4a's
+    ``fft_real_block``, ``corr_block``), 6 on the three-pass split
+    (``LONG_KERNELS``)."""
+    kind = cf.gcc_route(nfft, mics).kind
     return {cf.ROUTE_BLOCK: 1, cf.ROUTE_ROWS: 3, cf.ROUTE_SPECTRA: 4,
             cf.ROUTE_SPECTRA_BLOCK: 2,
-            getattr(cf, "ROUTE_LONG", -1): LONG_KERNELS["gcc_all_pairs"]
-            }.get(kind)
+            cf.ROUTE_LONG: LONG_KERNELS["gcc_all_pairs"]}[kind]
 
 
-def route_note(cf, nfft, mics, k1=False):
-    """'route <name>, n1=<n1>' of K2's GCC (K1's where ``k1``) at nfft and
-    ``mics``."""
-    route = _gcc_route(cf, nfft, mics, k1)
+def route_note(cf, nfft, mics):
+    """'route <name>, n1=<n1>' of K1's or K2's GCC at nfft and ``mics``."""
+    route = cf.gcc_route(nfft, mics)
     return f"route {cf.ROUTE_NAMES[route.kind]}, n1={route.n1}"
 
 
 def render_note(cf, nfft, rows):
     """'render <name>, n1=<n1>, finish <groups>' of K3's render (K5's) at
     nfft for a call of ``rows`` mic rows: its route and the finish's
-    blocks a packed mic row (``cuda_fft.finish_groups``); 'render
-    n1=<n1>' from a tree without them, for the A/B tool's
-    ``--recording``."""
-    if not hasattr(cf, "render_route"):
-        return f"render n1={cf.scene_stages(nfft, 1)[0]}"
+    blocks a packed mic row (``cuda_fft.finish_groups``)."""
     route = cf.render_route(nfft)
     return (f"render {cf.ROUTE_NAMES[route.kind]}, n1={route.n1}, finish "
             f"{cf.finish_groups(nfft, rows)}")
+
+
+def route_kernels(cf, name, nfft, mics=4):
+    """The port's kernels that a call of wrapper ``name`` may run at nfft
+    with ``mics`` mics a scene (``RENDER_KERNELS``, ``GCC_KERNELS``,
+    ``SCHEDULE_KERNELS``): K3 its render route's and the finish, K1 and
+    K2 their GCC route's, K5 both, K4a, K4b, K6 and K9 those of their
+    schedule (K6's are K4b's)."""
+    name = {"noise_bootstrap_peaks": "bootstrap_peaks"}.get(name, name)
+    if name in SCHEDULE_KERNELS:
+        n1 = cf._split_n1(nfft)
+        step = ("block" if n1 == 1 else "long" if nfft > cf.FFT_SPLIT_MAX
+                else "split")
+        return SCHEDULE_KERNELS[name][step]
+    route = cf.ROUTE_NAMES[cf.render_route(nfft).kind]
+    render = RENDER_KERNELS[route] + (FINISH_KERNELS if route != "block"
+                                      else ())
+    gcc = GCC_KERNELS[cf.ROUTE_NAMES[cf.gcc_route(nfft, mics).kind]]
+    return {"delay_sum": render, "scene_windowed": render + gcc}.get(name,
+                                                                     gcc)
+
+
+def port_kernels():
+    """The ``__global__`` kernel names of the checkout's CUDA sources."""
+    import re
+    names = set()
+    for src in (CSRC, ROWDFT_CSRC):
+        text = (Path(__file__).resolve().parent / src).read_text()
+        names.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
+                                r"\([^)]*\)\s*)?(\w+)\s*\(", text))
+    return names
+
+
+def outside_route(dev, allowed):
+    """The port's kernels in a ``device_ms`` trace ``dev`` that are not in
+    ``allowed`` (other kernels of the trace, such as torch's, aside)."""
+    port = port_kernels()
+    return sorted(k for k in dev if k in port and k not in allowed)
 
 
 def per_call(cf, name, fn, want):
@@ -1626,10 +1715,22 @@ def main_path_phase(cf, torch, slice_golden, sweep_golden, launches):
 
 
 # The long simulated scenes of phase 4 (seconds, the nfft of K3's render
-# and of K2's GCC there) and the kernels of K3's radix-2 render, which
-# none of them may run.
+# and of K2's GCC there).
 LONG_SCENES = ((20, 1 << 20), (60, 1 << 22), (120, 1 << 23))
-K3_PASS_KERNELS = ("pack_rows", "stockham_pass", "render_mix")
+
+
+def hold_routes(cf, name, dev, wrappers, nfft, hold=True):
+    """Logs the port's kernels in the trace ``dev`` of a call named
+    ``name`` that lie outside the routes of ``wrappers`` at nfft
+    (``route_kernels``), and raises on any where ``hold`` (False only logs
+    them, for an A/B against an older tree)."""
+    allowed = tuple(k for w in wrappers for k in route_kernels(cf, w, nfft))
+    stray = outside_route(dev, allowed)
+    log(f"{name}: kernels outside the routes of {', '.join(wrappers)}: "
+        f"{', '.join(f'{k} {dev[k]:.3f}' for k in stray) or 'none'}")
+    if stray and hold:
+        raise AssertionError(f"{name} ran kernels outside its routes: "
+                             f"{stray}")
 
 
 def long_scenes(cf, torch, launches, hold_spectra=True):
@@ -1639,8 +1740,8 @@ def long_scenes(cf, torch, launches, hold_spectra=True):
     through the base rows' spectra, its finish spread over the card, and
     K2's GCC goes through the mic rows' spectra.  For each, a cold and a warm
     call's wall time and one more call's device time by kernel, which
-    holds no kernel of K3's or K2's radix-2 passes (``hold_spectra`` False
-    only logs them, for an A/B against a tree that runs them); the TDOAs
+    holds no kernel outside K3's and K2's routes (``hold_routes``;
+    ``hold_spectra`` False only logs them); the TDOAs
     within 0.05 samples of the same scene through the port on the CPU
     (float32, the kernels' plain twins)."""
     from pyaudiolocalization_tpu_torch import DEFAULT_CONFIG
@@ -1672,13 +1773,10 @@ def long_scenes(cf, torch, launches, hold_spectra=True):
                 f"{k} {v:.3f}" for k, v in sorted(
                     dev.items(), key=lambda kv: -kv[1])
                 if k not in ("total", "kernels")) + f" {card_note()}")
-        passes = [k for k in dev
-                  if any(p in k for p in K3_PASS_KERNELS + K2_PASS_KERNELS)]
-        log(f"{name}: K3's and K2's radix-2 pass kernels in the trace: "
-            f"{passes or 'none'}")
-        if hold_spectra and (passes or "render_spec_rows" not in dev):
-            raise AssertionError(f"{name}: K3 or K2 ran the radix-2 passes "
-                                 f"{passes}, or no render_spec_rows")
+        hold_routes(cf, name, dev, ("delay_sum", "gcc_windowed"), nfft,
+                    hold_spectra)
+        if hold_spectra and "render_spec_rows" not in dev:
+            raise AssertionError(f"{name}: no render_spec_rows")
         cpu, cpu_s = _wall(torch, lambda: localize_sound_source(
             cfg, device="cpu", dtype=torch.float32))
         got = [float(t) * FS for t in res["tdoas"]]
@@ -3289,17 +3387,13 @@ def recorded_api(cf, torch, golden, paths, launches):
     _add(launches, counts)
 
 
-# Device kernels of K1's radix-2 passes (``palt_gcc_all_pairs`` at n1 =
-# 0 until the three-pass split took their place above 2^26; a parent
-# tree's trace still names them): the packing, the passes, the
-# cross-spectra and the split into pairs.
-K1_PASS_KERNELS = ("pack_rows", "stockham_pass", "gcc_cross", "split_pairs")
 # Device kernels of K1's three-pass split (above 2^26) of its own: the
 # row pass and A' with the correlations (its B' is ``long_cols_b``, which
 # K4a and K6 run too).
 K1_LONG_KERNELS = ("corr_rows_long", "long_cols_corr")
-K2_PASS_KERNELS = ("pack_rows", "stockham_pass", "gcc_cross",
-                   "last_pass_window")
+# The wrappers whose routes a recording's localization on the full core
+# may run (``hold_routes``): K1, K4a and K4b or K6.
+RECORDED_ROUTES = ("gcc_all_pairs", "fft_real", "bootstrap_peaks")
 # Step 4's recordings at 44.1 kHz (no resampling): seconds, the path and
 # the nfft its GCC transforms at under DEFAULT_CONFIG.
 SPECTRA_RECORDINGS = ((16, "full core", 1 << 20), (16, "fast path", 1 << 20),
@@ -3389,8 +3483,8 @@ def long_recording(cf, torch, launches, hold_split=True):
     strips.  For each, each TDOA within 0.5 samples of its injected delay
     x 44,100 / 48,000; then a second, warm call's wall time and one more
     call's device time by kernel (``torch.profiler``), which holds no
-    kernel of K1's radix-2 passes (``K1_PASS_KERNELS``; ``hold_split``
-    False only logs them, for an A/B against a tree that runs them)."""
+    kernel outside the routes of K1, K4a and K6 (``hold_routes``;
+    ``hold_split`` False only logs them)."""
     from pyaudiolocalization_tpu_torch import api
     from pyaudiolocalization_tpu_torch.utils import audio_io
     n = LONG_FILE_FS * LONG_SECONDS
@@ -3415,24 +3509,15 @@ def long_recording(cf, torch, launches, hold_split=True):
             raise AssertionError(f"{name} misses nfft {nfft_want}")
         dev = _localize_recording(cf, torch, launches, name, paths, med,
                                   want, "files, resampling")
-        passes = [k for k in dev if any(p in k for p in K1_PASS_KERNELS)]
-        if passes and hold_split:
-            raise AssertionError(f"{name} ran K1's radix-2 passes: {passes}")
-        log(f"{name}: K1's radix-2 pass kernels in the trace: "
-            f"{passes or 'none'}")
+        hold_routes(cf, name, dev, RECORDED_ROUTES, nfft, hold_split)
 
 
 # Step 3b's recording: 4 mics x 60 s at 44.1 kHz (no resampling) with
 # whole-sample delays near the 24 s recording's once resampled, whose GCC
 # and noise null transform at 2^23 under ``max_expected_delay=None``
-# (next_pow2(2n - 1)); and the device kernels that K4a's and K6's radix-2
-# passes ran and K1's passes do not (the passes above 2^26 until the
-# three-pass split took their place and their kernels were deleted: a
-# parent tree's trace still names them).
+# (next_pow2(2n - 1)).
 REC23_SECONDS = 60
 REC23_DELAYS = (0, 22, 56, 89)
-K4A_K6_PASS_KERNELS = ("split_spectra", "noise_first_pass", "boot_whiten",
-                       "last_pass_max")
 
 
 def recording23(cf, torch, launches, hold_split=True):
@@ -3444,9 +3529,8 @@ def recording23(cf, torch, launches, hold_split=True):
     K1 through its mic rows' spectra on that split.  Each TDOA within 0.5
     samples of its injected delay; then a second, warm call's wall time
     and one more call's device time by kernel (``torch.profiler``), which
-    holds no kernel of K4a's, K6's or K1's passes
-    (``K4A_K6_PASS_KERNELS``, ``K1_PASS_KERNELS``; ``hold_split`` False
-    only logs them, for an A/B against a tree that runs them)."""
+    holds no kernel outside the routes of K1, K4a and K6 (``hold_routes``;
+    ``hold_split`` False only logs them)."""
     from pyaudiolocalization_tpu_torch import api
     n = int(FS) * REC23_SECONDS
     paths = _noise_recording(60, FS, n, REC23_DELAYS, "chip_smoke_rec23_")
@@ -3459,13 +3543,7 @@ def recording23(cf, torch, launches, hold_split=True):
         raise AssertionError(f"{name} misses nfft {SPLIT23[1]}")
     dev = _localize_recording(cf, torch, launches, name, paths, None,
                               _pair_delays(REC23_DELAYS), "files")
-    passes = [k for k in dev if any(
-        p in k for p in K4A_K6_PASS_KERNELS + K1_PASS_KERNELS)]
-    if passes and hold_split:
-        raise AssertionError(f"{name} ran K4a's, K6's or K1's radix-2 "
-                             f"passes: {passes}")
-    log(f"{name}: K4a's, K6's and K1's radix-2 pass kernels in the trace: "
-        f"{passes or 'none'}")
+    hold_routes(cf, name, dev, RECORDED_ROUTES, nfft, hold_split)
 
 
 # Step 3c's recording: 4 mics x 200 s at 44.1 kHz (no resampling) with
@@ -3485,10 +3563,9 @@ def recording25(cf, torch, launches, hold_split=True):
     n2-point table read from device memory).  Each TDOA within 0.5
     samples of its injected delay; then a second, warm call's wall time
     and one more call's device time by kernel (``torch.profiler``), which
-    holds no kernel of K4a's, K6's or K1's passes
-    (``K4A_K6_PASS_KERNELS``, ``K1_PASS_KERNELS``; ``hold_split`` False
-    only logs them, for an A/B against a tree that runs them).  Returns
-    the device time by kernel."""
+    holds no kernel outside the routes of K1, K4a and K6 (``hold_routes``;
+    ``hold_split`` False only logs them).  Returns the device time by
+    kernel."""
     from pyaudiolocalization_tpu_torch import api
     n = int(FS) * REC25_SECONDS
     paths = _noise_recording(200, FS, n, REC23_DELAYS, "chip_smoke_rec25_")
@@ -3501,13 +3578,7 @@ def recording25(cf, torch, launches, hold_split=True):
         raise AssertionError(f"{name} misses nfft {SPLIT25[1]}")
     dev = _localize_recording(cf, torch, launches, name, paths, None,
                               _pair_delays(REC23_DELAYS), "files")
-    passes = [k for k in dev if any(
-        p in k for p in K4A_K6_PASS_KERNELS + K1_PASS_KERNELS)]
-    if passes and hold_split:
-        raise AssertionError(f"{name} ran K4a's, K6's or K1's radix-2 "
-                             f"passes: {passes}")
-    log(f"{name}: K4a's, K6's and K1's radix-2 pass kernels in the trace: "
-        f"{', '.join(f'{k} {dev[k]:.3f}' for k in passes) or 'none'}")
+    hold_routes(cf, name, dev, RECORDED_ROUTES, nfft, hold_split)
     return dev
 
 
@@ -3528,10 +3599,9 @@ def recording27(cf, torch, launches, hold_split=True):
     rows' spectra, ``K1_LONG_KERNELS`` after K4a's, logged).  Each TDOA
     within 0.5 samples of its injected delay; then a second, warm call's
     wall time and one more call's device time by kernel
-    (``torch.profiler``), which holds no kernel of K4a's, K6's or K1's
-    radix-2 passes (``K4A_K6_PASS_KERNELS``, ``K1_PASS_KERNELS``;
-    ``hold_split`` False only logs them, for an A/B against a tree that
-    runs them).  The files' directory is removed afterwards.  Returns the
+    (``torch.profiler``), which holds no kernel outside the routes of K1,
+    K4a and K6 (``hold_routes``; ``hold_split`` False only logs them).
+    The files' directory is removed afterwards.  Returns the
     device time by kernel."""
     import os
     import shutil
@@ -3544,22 +3614,16 @@ def recording27(cf, torch, launches, hold_split=True):
                 "max_expected_delay=None)")
         log(f"{name}: nfft {nfft}, K4a's and K6's schedule n1="
             f"{cf._split_n1(nfft)}, K1's n1="
-            f"{_gcc_route(cf, nfft, 4, True).n1}")
-        if nfft != PASSES27[1]:
-            raise AssertionError(f"{name} misses nfft {PASSES27[1]}")
+            f"{cf.gcc_route(nfft, 4).n1}")
+        if nfft != LONG27[1]:
+            raise AssertionError(f"{name} misses nfft {LONG27[1]}")
         dev = _localize_recording(cf, torch, launches, name, paths, None,
                                   _pair_delays(REC23_DELAYS), "files")
     finally:
         shutil.rmtree(os.path.dirname(paths[0]), ignore_errors=True)
-    passes = [k for k in dev if any(
-        p in k for p in K4A_K6_PASS_KERNELS + K1_PASS_KERNELS)]
-    if passes and hold_split:
-        raise AssertionError(f"{name} ran K4a's, K6's or K1's radix-2 "
-                             f"passes: {passes}")
+    hold_routes(cf, name, dev, RECORDED_ROUTES, nfft, hold_split)
     k1 = [k for k in dev if any(p in k for p in K1_LONG_KERNELS)]
-    log(f"{name}: K4a's, K6's and K1's radix-2 pass kernels in the trace: "
-        f"{', '.join(f'{k} {dev[k]:.3f}' for k in passes) or 'none'}; "
-        f"K1's own three-pass kernels: "
+    log(f"{name}: K1's own three-pass kernels: "
         f"{', '.join(f'{k} {dev[k]:.3f}' for k in k1) or 'none'}")
     return dev
 
@@ -3574,9 +3638,8 @@ def spectra_recordings(cf, torch, launches, hold_spectra=True):
     windowed fast path (K2 at 2^20, 2^21, 2^22 and 2^23).  For each, each
     TDOA within 0.5 samples of its injected delay; then a warm call's
     wall time and one more call's device time by kernel, which holds no
-    kernel of K1's or K2's radix-2 passes
-    (``K1_PASS_KERNELS``, ``K2_PASS_KERNELS``; ``hold_spectra`` False only
-    logs them, for an A/B against a tree that runs them)."""
+    kernel outside the routes of K1, K4a and K4b (full core) or K2 (fast
+    path) (``hold_routes``; ``hold_spectra`` False only logs them)."""
     import os
     import tempfile
     import numpy as np
@@ -3639,13 +3702,8 @@ def spectra_recordings(cf, torch, launches, hold_spectra=True):
             + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
                 dev.items(), key=lambda kv: -kv[1])
                 if k not in ("total", "kernels")) + f" {card_note()}")
-        passes = [k for k in dev if any(
-            p in k for p in K1_PASS_KERNELS + K2_PASS_KERNELS)]
-        if passes and hold_spectra:
-            raise AssertionError(f"{name} ran K1's or K2's radix-2 passes: "
-                                 f"{passes}")
-        log(f"{name}: K1's and K2's radix-2 pass kernels in the trace: "
-            f"{passes or 'none'}")
+        hold_routes(cf, name, dev, RECORDED_ROUTES if path == "full core"
+                    else ("gcc_windowed",), nfft, hold_spectra)
 
 
 def compat_on_card(cf, torch, golden, launches):

@@ -1,54 +1,37 @@
-// Batched power-of-two complex FFTs for the port's kernels (sm_90a), in
-// two schedules.  Twiddles come from one table tw[m] = exp(-2*pi*i*m/n),
-// m < n/2, made in double precision on the host and rounded once to f32
-// (w = -tw[e - n/2] for e >= n/2); inverses use the conjugates (no 1/n
-// scale).
+// Batched power-of-two complex FFTs for the port's kernels (sm_90a).
+// Twiddles come from one table tw[m] = exp(-2*pi*i*m/n), m < n/2, made in
+// double precision on the host and rounded once to f32 (w = -tw[e - n/2]
+// for e >= n/2); inverses use the conjugates (no 1/n scale).
 //
-// 1. Passes through device memory (`stockham_pass`, `fft_rows`): one
-//    radix-2 Stockham pass per launch over rows in device memory,
-//    ping-ponging between two buffers; after log2(n) passes the row is in
-//    natural order.  A 65,536-point row is 512 KB, more than the 227 KB of
-//    shared memory a block can hold, so every pass streams the rows
-//    through device memory (and the 50 MB L2): 16 bytes per point per
-//    pass, about 16 * log2(n) bytes per point and transform, and one
-//    launch per pass.  The spectra routes' kernels (K1, K2, K3, K5 and
-//    K9) run on it above 2^26 only; they fuse their first or last pass
-//    into a prologue or epilogue.  K4a, K4b and K6 no longer run it: above
-//    2^26, to 2^30, they take a three-pass split (`long_forward` in
-//    kernels.cu).
-//
-// 2. On-chip sub-transforms (`block_fft`): one block transforms S
-//    sequences of length L (L * S <= kElems * 1024) held in shared memory,
-//    all log2(L) stages in one launch: Stockham stages of radix 16 (one of
-//    radix 2, 4 or 8 first where log2(L) is not a multiple of 4), kElems
-//    points a thread per stage in registers, a shared-memory exchange
-//    between stages (two __syncthreads each).  Sub-twiddles
-//    exp(-2*pi*i*q/L), q < L/2, are staged in shared memory from the
-//    table (`stage_twiddles`).  The
-//    caller loads the strip with coalesced reads and hands the result to
-//    its own epilogue, so a launch moves 16 bytes per complex point (8 in,
-//    8 out), not 16 per point per pass.  A longer row is a four-step
-//    product n = n1 * n2 of two such launches (K4a; K4b, K6, K1, and K3's
-//    render and K2's GCC stages, both of them in K5, run it forward and
-//    back in three, the middle one holding the rows for both directions;
-//    K9 runs the back half in two, and K1's, K2's and K5's GCC, where
-//    their row pass's strips of every mic row do not fit, K4a's two and
-//    K9's two, through the mic rows' spectra; K3's render, where its two
-//    strips do not fit, K4a's two into the base rows' spectra, a one-strip
-//    mix row pass and the column pass; up to 1024 x 1024 with strips of
-//    kStrip sequences, for K1, K2, K3, K4a, K4b, K5, K6 and K9 up to
-//    2048 x 2048 with strips of 8 where 16 would pass kElems * 1024
-//    points, and for all of them up to 4096 x 4096, the long side in the
-//    rows (2048 x 4096 at 2^23), with strips of 4 at 4,096, and for K4a,
-//    K4b and K6 up to 8192 x 8192 with strips of 2 at 8,192, and on to
-//    2^30 with n1 split again, two column passes of 16 columns); the
-//    length-n2 rows of a (n2, 128) plane are one (K10b, and K10a with its
-//    radix-16 stages on the tensor cores), and so are the 128-point lane
-//    DFTs of 32 of its rows (K10c).
-//    Up to 4096 points one block holds a whole row (K4a, K4b, K6, K1,
-//    K9, K3's render and K2's GCC: a scene where its rows fit, else a
-//    packed cross row through the mic rows' spectra).
-//    Bound: device memory, one read and one write per launch.
+// On-chip sub-transforms (`block_fft`): one block transforms S sequences
+// of length L (L * S <= kElems * 1024) held in shared memory, all log2(L)
+// stages in one launch: Stockham stages of radix 16 (one of radix 2, 4 or
+// 8 first where log2(L) is not a multiple of 4), kElems points a thread
+// per stage in registers, a shared-memory exchange between stages (two
+// __syncthreads each).  Sub-twiddles exp(-2*pi*i*q/L), q < L/2, are staged
+// in shared memory from the table (`stage_twiddles`).  The caller loads
+// the strip with coalesced reads and hands the result to its own
+// epilogue, so a launch moves 16 bytes per complex point (8 in, 8 out).
+// A longer row is a four-step product n = n1 * n2 of two such launches
+// (K4a; K4b, K6, K1, and K3's render and K2's GCC stages, both of them in
+// K5, run it forward and back in three, the middle one holding the rows
+// for both directions; K9 runs the back half in two, and K1's, K2's and
+// K5's GCC, where their row pass's strips of every mic row do not fit,
+// K4a's two and K9's two, through the mic rows' spectra; K3's render,
+// where its two strips do not fit, K4a's two into the base rows' spectra,
+// a one-strip mix row pass and the column pass; up to 1024 x 1024 with
+// strips of kStrip sequences, up to 2048 x 2048 with strips of 8 where 16
+// would pass kElems * 1024 points, up to 4096 x 4096, the long side in the
+// rows (2048 x 4096 at 2^23), with strips of 4 at 4,096, and up to 8192 x
+// 8192 with strips of 2 at 8,192); above 2^26, to 2^30, every transforming
+// kernel splits n1 again, n1 = n1a * n1b, two column passes of 16 columns
+// each way (the three-pass split, `long_forward` in kernels.cu).  The
+// length-n2 rows of a (n2, 128) plane are one (K10b, and K10a with its
+// radix-16 stages on the tensor cores), and so are the 128-point lane
+// DFTs of 32 of its rows (K10c).  Up to 4096 points one block holds a
+// whole row (K4a, K4b, K6, K1, K9, K3's render and K2's GCC: a scene where
+// its rows fit, else a packed cross row through the mic rows' spectra).
+// Bound: device memory, one read and one write per launch.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -63,61 +46,6 @@ constexpr int kElems = 16;  // points a thread holds per stage
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-// One Stockham pass: p is the length of the sub-transforms already done
-// (1, 2, 4, ..., n/2).  blockIdx.y selects the row.
-__global__ void stockham_pass(const float2* __restrict__ in,
-                              float2* __restrict__ out,
-                              const float2* __restrict__ tw, int n, int p,
-                              int inverse) {
-  const int half = n >> 1;
-  const int stride = half / p;
-  const size_t row = (size_t)blockIdx.y * (size_t)n;
-  const float2* x = in + row;
-  float2* y = out + row;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < half;
-       i += gridDim.x * blockDim.x) {
-    const int k = i & (p - 1);
-    float2 w = tw[k * stride];  // exp(-i*pi*k/p)
-    if (inverse) w.y = -w.y;
-    const float2 a = x[i];
-    const float2 b = cmul(x[i + half], w);
-    const int j = (i << 1) - k;
-    y[j] = make_float2(a.x + b.x, a.y + b.y);
-    y[j + p] = make_float2(a.x - b.x, a.y - b.y);
-  }
-}
-
-inline int pass_blocks(int n) {
-  int blocks = ((n >> 1) + kThreads - 1) / kThreads;
-  return blocks < 1024 ? blocks : 1024;
-}
-
-// Transforms `rows` rows of length n held in buf0; returns the buffer
-// (buf0 or buf1) that holds the result.  `passes` < log2(n) stops early
-// (the caller fuses the last pass into its epilogue); `p0` > 1 starts
-// after passes the caller fused into its prologue.
-inline float2* fft_rows(float2* buf0, float2* buf1, const float2* tw, int n,
-                        int rows, int inverse, int passes,
-                        cudaStream_t stream, int p0 = 1) {
-  float2* src = buf0;
-  float2* dst = buf1;
-  int done = 0;
-  for (int p = p0; p < n && done < passes; p <<= 1, ++done) {
-    dim3 grid(pass_blocks(n), rows);
-    stockham_pass<<<grid, kThreads, 0, stream>>>(src, dst, tw, n, p, inverse);
-    float2* t = src;
-    src = dst;
-    dst = t;
-  }
-  return src;
-}
-
-inline int log2_int(int n) {
-  int l = 0;
-  while ((1 << l) < n) ++l;
-  return l;
 }
 
 // ---- on-chip sub-transforms ----------------------------------------------

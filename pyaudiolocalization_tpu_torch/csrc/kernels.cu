@@ -7,7 +7,7 @@
 //
 // Shared conventions:
 //   * real rows are packed two to a complex row (z = a + i*b) before a
-//     forward transform; `unpack_bin` recovers either row's spectrum.
+//     forward transform; `split_bin` recovers either row's spectrum.
 //     Rows are numbered across the whole batch (row = scene * M + mic), so
 //     a packed row may hold the last mic of one scene and the first of the
 //     next;
@@ -28,24 +28,20 @@
 #include "philox.cuh"
 
 using palt::cmul;
-using palt::fft_rows;
 using palt::kThreads;
-using palt::log2_int;
 
 namespace {
 
 constexpr int kRowThreads = 1024;
 // The GCC routes of K1, K2 and K5 (``cuda_fft.gcc_route`` picks one for
-// (nfft, mics), the same for the three): the radix-2 passes (above 2^26),
-// one block a scene, the split with `gcc_rows`, the split through the mic
-// rows' spectra, and one block a packed cross row through the spectra;
-// above 2^26 K1 alone takes the three-pass split through the spectra
-// (``cuda_fft.gcc_all_route``), K2 and K5 the passes.  K3's render stage,
-// K5's too, takes the first four (``cuda_fft.render_route``): the passes,
-// `render_block`, the split with `render_rows`, the split through the
-// base rows' spectra.
+// (nfft, mics), the same for the three): one block a scene, the split with
+// `gcc_rows`, the split through the mic rows' spectra, one block a packed
+// cross row through the spectra, and above 2^26 the three-pass split
+// through the spectra.  K3's render stage, K5's too, takes `render_block`,
+// the split with `render_rows`, the split through the base rows' spectra
+// and above 2^26 the three-pass split through them
+// (``cuda_fft.render_route``).
 enum GccRoute {
-  kRoutePasses = 0,
   kRouteBlock = 1,
   kRouteRows = 2,
   kRouteSpectra = 3,
@@ -59,13 +55,6 @@ enum GccRoute {
 __device__ __forceinline__ float2 split_bin(float2 zk, float2 zm, int odd) {
   if (!odd) return make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
   return make_float2(0.5f * (zk.y + zm.y), -0.5f * (zk.x - zm.x));
-}
-
-// Spectrum bin k (0 <= k <= n/2) of real row r, from rows packed in pairs.
-__device__ __forceinline__ float2 unpack_bin(const float2* z, int r, int k,
-                                             int n) {
-  const float2* row = z + (size_t)(r >> 1) * (size_t)n;
-  return split_bin(row[k], row[(n - k) & (n - 1)], r & 1);
 }
 
 // Writes bins k and n-k of the packed spectrum ya + i*yb of two Hermitian
@@ -183,27 +172,6 @@ __device__ __forceinline__ void block_argmax(float& v, int& idx, float* sv,
   __syncthreads();
   v = sv[0];
   idx = si[0];
-}
-
-// Real rows x (rows, len), row stride ld, zero-padded to n -> complex rows
-// (ceil(rows/2), n) packing rows 2c and 2c+1.
-__global__ void pack_rows(const float* __restrict__ x, int rows, int len,
-                          int ld, int n, float2* __restrict__ z) {
-  const int c = blockIdx.y;
-  const int ra = 2 * c;
-  const int rb = 2 * c + 1;
-  float2* out = z + (size_t)c * (size_t)n;
-  for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < n;
-       t += gridDim.x * blockDim.x) {
-    const float a = t < len ? x[(size_t)ra * ld + t] : 0.0f;
-    const float b = (t < len && rb < rows) ? x[(size_t)rb * ld + t] : 0.0f;
-    out[t] = make_float2(a, b);
-  }
-}
-
-inline int bin_blocks(int n) {
-  int blocks = ((n >> 1) + 1 + kThreads - 1) / kThreads;
-  return blocks < 1024 ? blocks : 1024;
 }
 
 // The device's SM count, read once per device (the query costs host time
@@ -704,107 +672,6 @@ cudaError_t fft_real_block_launch(Load load, int rows, int n,
   return cudaGetLastError();
 }
 
-// ---- K1 / K2: PHAT cross-spectra, two pairs per packed row ---------------
-
-// Packed row blockIdx.y = scene * couples + c holds pairs 2c and 2c+1 of
-// that scene; the mics of scene s are spectrum rows s * mics + i.
-__global__ void gcc_cross(const float2* __restrict__ spec,
-                          const int* __restrict__ pairs_i,
-                          const int* __restrict__ pairs_j, int num_pairs,
-                          int mics, int couples,
-                          const float* __restrict__ band, float eps, int n,
-                          float2* __restrict__ z) {
-  const int row_c = blockIdx.y;
-  const int scene = row_c / couples;
-  const int c = row_c - scene * couples;
-  const int m0 = scene * mics;
-  const int p0 = 2 * c;
-  const int p1 = 2 * c + 1;
-  const int half = n >> 1;
-  float2* row = z + (size_t)row_c * (size_t)n;
-  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k <= half;
-       k += gridDim.x * blockDim.x) {
-    const float b = band[k];
-    float2 r0 = whiten(unpack_bin(spec, m0 + pairs_i[p0], k, n),
-                       unpack_bin(spec, m0 + pairs_j[p0], k, n), eps);
-    r0 = make_float2(r0.x * b, r0.y * b);
-    float2 r1 = make_float2(0.0f, 0.0f);
-    if (p1 < num_pairs) {
-      r1 = whiten(unpack_bin(spec, m0 + pairs_i[p1], k, n),
-                  unpack_bin(spec, m0 + pairs_j[p1], k, n), eps);
-      r1 = make_float2(r1.x * b, r1.y * b);
-    }
-    store_packed(row, k, n, r0, r1);
-  }
-}
-
-// K2's epilogue: the last inverse pass fused with the 1/n scale, the write
-// of lags [-w, w) (window sample s holds lag s - w: natural indices n-w..n-1
-// then 0..w-1) and three statistics over the whole correlation: mean |corr|,
-// the maximum and the smallest natural index attaining it.  One block per
-// packed row (pairs 2c, 2c+1 of one scene); the correlation is never
-// written.  The mean is a per-thread serial sum of n/1024 terms followed by
-// a shuffle tree.
-__global__ void last_pass_window(const float2* __restrict__ in,
-                                 const float2* __restrict__ tw, int n,
-                                 int num_pairs, int couples, int w,
-                                 float scale, float* __restrict__ win,
-                                 float* __restrict__ stats) {
-  __shared__ float sv[32];
-  __shared__ int si[32];
-  const int row_c = blockIdx.x;
-  const int scene = row_c / couples;
-  const int c = row_c - scene * couples;
-  const int p0 = 2 * c;
-  const int p1 = 2 * c + 1;
-  const bool two = p1 < num_pairs;
-  const int half = n >> 1;  // final pass: k = i, twiddle tw[i], j = i
-  const float2* x = in + (size_t)row_c * (size_t)n;
-  const size_t q0 = (size_t)scene * num_pairs + p0;
-  float* w0 = win + q0 * (size_t)(2 * w);
-  float* w1 = w0 + 2 * w;
-  float sum0 = 0.0f, sum1 = 0.0f;
-  float max0 = -INFINITY, max1 = -INFINITY;
-  int idx0 = INT_MAX, idx1 = INT_MAX;
-  for (int i = threadIdx.x; i < half; i += blockDim.x) {
-    float2 t = tw[i];
-    t.y = -t.y;
-    const float2 a = x[i];
-    const float2 b = cmul(x[i + half], t);
-    const float lo0 = (a.x + b.x) * scale, lo1 = (a.y + b.y) * scale;
-    const float hi0 = (a.x - b.x) * scale, hi1 = (a.y - b.y) * scale;
-    sum0 += fabsf(lo0) + fabsf(hi0);
-    sum1 += fabsf(lo1) + fabsf(hi1);
-    arg_update(max0, idx0, lo0, i);
-    arg_update(max0, idx0, hi0, i + half);
-    arg_update(max1, idx1, lo1, i);
-    arg_update(max1, idx1, hi1, i + half);
-    if (i < w) {
-      w0[w + i] = lo0;
-      if (two) w1[w + i] = lo1;
-    }
-    if (i >= half - w) {
-      w0[i - half + w] = hi0;
-      if (two) w1[i - half + w] = hi1;
-    }
-  }
-  sum0 = block_sum(sum0, sv);
-  sum1 = block_sum(sum1, sv);
-  block_argmax(max0, idx0, sv, si);
-  block_argmax(max1, idx1, sv, si);
-  if (threadIdx.x == 0) {
-    float* s0 = stats + q0 * 3;
-    s0[0] = sum0 / (float)n;
-    s0[1] = max0;
-    s0[2] = (float)idx0;
-    if (two) {
-      s0[3] = sum1 / (float)n;
-      s0[4] = max1;
-      s0[5] = (float)idx1;
-    }
-  }
-}
-
 // ---- K4b / K6: bootstrap null peaks --------------------------------------
 //
 // Per packed row z = a + i*b (rows 2c, 2c+1): the forward transform, each
@@ -1234,7 +1101,7 @@ cudaError_t boot_split(const float2* s1, Load load, int rows, int n, int n1,
   });
 }
 
-// ---- K4a, K4b, K6, K9 and K1 above 2^26: the three-pass split -----------
+// ---- every transforming kernel above 2^26: the three-pass split ---------
 //
 // Above 2^26, to 2^30 (``cuda_fft.FFT_LONG_MAX``), n = n1 * n2 keeps the
 // row side of 2^26, n2 = 8,192: a row pass holds row k1 and its partner n1
@@ -1262,7 +1129,14 @@ cudaError_t boot_split(const float2* s1, Load load, int rows, int n, int n1,
 // `boot_cols`).  K9 and K1's back half run `corr_rows_long` (`corr_rows`
 // without the conjugate twiddle) over natural-order spectra, then B' and
 // A' with the correlations (`long_cols_corr`, as `corr_cols`); K1 first
-// writes its mic rows' spectra by K4a's three.  The sub-twiddles come
+// writes its mic rows' spectra by K4a's three.  K2's GCC stage (K5's too)
+// runs K1's launches with A' ending in the window and the statistics
+// (`long_cols_window`, as `window_cols`), and K3's render stage (K5's too)
+// K4a's three over the base rows, the mix row pass `render_spec_rows_long`
+// (`render_spec_rows` without the conjugate twiddle), B' and A' writing
+// the packed inverse in natural order (`long_cols_render`, as
+// `render_cols`).  A' writes other rows than it reads, so unlike the
+// split's last column pass it never runs in place.  The sub-twiddles come
 // from the n1a- and n1b-point half tables after the n-, n1- and n2-point
 // ones (``cuda_fft._twiddles``); W_n1^e from the n1-point half table and
 // W_n^e as W_n2^{e / n1} W_n^{e mod n1}, `split_twiddle`'s product, both
@@ -1525,6 +1399,24 @@ cudaError_t long_forward(Load load, int packed, int n1a, int n1b, int n2,
   return long_cols_b_launch<false>(packed, n1a, n1b, n2, tw, buf, s);
 }
 
+// K4a's three passes on the three-pass split (n = n1 * n2, n1 = n1a *
+// n1b) over the `rows` rows given by load: passes A and B into buf
+// (ceil(rows / 2), n), then `fft_real_rows` (s2 = 2 rows a strip) into
+// their natural-order half spectra spec (rows, n/2 + 1): the spectra that
+// the GCCs' and the render's back halves read above 2^26.  buf may not be
+// the loader's: pass A writes other rows than it reads.
+template <class Load>
+cudaError_t long_spectra(Load load, int rows, int n, int n1, int n1a, int cs,
+                         int s2, const float2* tw, float2* buf, float2* spec,
+                         cudaStream_t s) {
+  const int n2 = n / n1;
+  const cudaError_t err = long_forward(load, (rows + 1) / 2, n1a, n1 / n1a,
+                                       n2, cs, tw, buf, s);
+  if (err != cudaSuccess) return err;
+  return (cudaError_t)fft_real_rows_launch(buf, rows, n1, n2, s2, tw, spec,
+                                           s);
+}
+
 // K4b / K6 on the three-pass split (n = n1 * n2, n1 = n1a * n1b) for rows
 // given by load: passes A and B, `boot_rows_long` (rs = 2 rows a strip),
 // B' and A' with the maxima, through buf (ceil(rows/2), n) in place.
@@ -1621,32 +1513,6 @@ __device__ __forceinline__ float2 mic_response(const float* tau,
     hi -= gain[p] * s;
   }
   return make_float2(hr, hi);
-}
-
-// Packed row c mixes mic rows 2c and 2c+1 (row = scene * mics + mic) from
-// their scene's base spectrum (packed base row scene / 2).
-__global__ void render_mix(const float2* __restrict__ zb,
-                           const float* __restrict__ tau,
-                           const float* __restrict__ gain, int rows,
-                           int mics, int paths, int n,
-                           float2* __restrict__ z) {
-  const int c = blockIdx.y;
-  const int ra = 2 * c;
-  const int rb = 2 * c + 1;
-  const int half = n >> 1;
-  float2* row = z + (size_t)c * (size_t)n;
-  const float* ta = tau + (size_t)ra * paths;
-  const float* ga = gain + (size_t)ra * paths;
-  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k <= half;
-       k += gridDim.x * blockDim.x) {
-    const float2 ya = cmul(unpack_bin(zb, ra / mics, k, n),
-                           mic_response(ta, ga, paths, k, n));
-    float2 yb = make_float2(0.0f, 0.0f);
-    if (rb < rows)
-      yb = cmul(unpack_bin(zb, rb / mics, k, n),
-                mic_response(ta + paths, ga + paths, paths, k, n));
-    store_packed(row, k, n, ya, yb);
-  }
 }
 
 // The finish of H mic rows after their scale and fade, in place: sample t
@@ -1923,14 +1789,14 @@ finish_spread(float2* z, int rows, int n, int mics, int out_len,
 // base row (`render_block`) or a scene (`window_block`, where its rows
 // fit).  Elsewhere up to 2^26 both stages go through spectra on the
 // split: the render through the base rows' (`render_spectra`), the GCC
-// through the mic rows' (`window_route`); above 2^26 both run the radix-2
-// passes (`render_stage`, `window_stage`).  Three launches a stage on the
-// split with two-strip row passes:
+// through the mic rows' (`window_route`); above 2^26, to 2^30, both go
+// through them on the three-pass split (`render_long`, `window_long`).
+// Three launches a stage on the split with two-strip row passes:
 //
 // render:  K4a's pass 1 over the base rows (two scenes a packed row);
 //          `render_rows`: the base strip's forward row DFTs, then for
 //          each of the two scenes' `mics` packed mic rows the mixes
-//          (`mic_response`, `render_mix`'s arithmetic) packed two mic rows
+//          (the base spectrum times `mic_response`) packed two mic rows
 //          a complex row, the inverse row DFTs and the conjugate twiddle;
 //          `render_cols`: the inverse column DFTs, written in place in
 //          natural order, the unscaled packed inverse `render_finalize`
@@ -1939,7 +1805,7 @@ finish_spread(float2* z, int rows, int n, int mics, int out_len,
 //          signals, packed in place); `gcc_rows`: one scene's strips of
 //          every packed mic row that holds one of its mics, and for each
 //          couple of pairs the whitened, band-masked cross-spectra
-//          (`gcc_cross`'s arithmetic) packed two pairs a row, the inverse
+//          (`whiten` times the band) packed two pairs a row, the inverse
 //          row DFTs and the conjugate twiddle; `window_cols`: the inverse
 //          column DFTs, 1/n, the lag window and the three statistics,
 //          combined across the row's blocks in a fixed order.
@@ -2035,6 +1901,36 @@ render_rows(const float* __restrict__ tau, const float* __restrict__ gain,
 // the contiguous copies (`stage_split_lo_hi`).  A block runs
 // fft_threads(n2, S) = 1,024 threads: 512 threads of twice the points
 // measured 3-12 % slower from 2^21 to 2^24 (PERF.md).
+// `render_spec_rows`' and `render_spec_rows_long`'s gather: each
+// mirror-pair task of block b of packed mic row pm (`pair_task`, strips of
+// S rows at the stride ld) mixes bin q <= n/2 of the half spectra spec of
+// the scenes of mic rows 2pm and 2pm + 1 with their `mic_response` and
+// stores the packed pair into work (`store_pair`).
+template <int S>
+__device__ __forceinline__ void render_gather(
+    const float2* __restrict__ spec, const float* __restrict__ tau,
+    const float* __restrict__ gain, int rows, int mics, int paths, int pm,
+    int b, int n1, int n2, int ld, float2* work) {
+  const int n = n1 * n2;
+  const int ra = 2 * pm;
+  const bool two = ra + 1 < rows;
+  const size_t bins = (size_t)(n >> 1) + 1;
+  const float2* sa = spec + (size_t)(ra / mics) * bins;
+  const float2* sb = spec + (size_t)((two ? ra + 1 : ra) / mics) * bins;
+  const float* ta = tau + (size_t)ra * paths;
+  const float* ga = gain + (size_t)ra * paths;
+  const int tasks = pair_tasks<S>(b, n2);
+  for (int t = threadIdx.x; t < tasks; t += blockDim.x) {
+    const PairTask p = pair_task<S>(t, b, n1, n2, ld);
+    const float2 ya = cmul(sa[p.q], mic_response(ta, ga, paths, p.q, n));
+    float2 yb = make_float2(0.0f, 0.0f);
+    if (two)
+      yb = cmul(sb[p.q],
+                mic_response(ta + paths, ga + paths, paths, p.q, n));
+    store_pair(work, p, n, ya, yb);
+  }
+}
+
 template <int S, bool kHi = false>
 __global__ void __launch_bounds__(1024)
 render_spec_rows(const float2* __restrict__ spec,
@@ -2050,28 +1946,40 @@ render_spec_rows(const float2* __restrict__ spec,
   const int n = n1 * n2;
   const int pm = blockIdx.y;
   const int b = blockIdx.x;
-  const int ra = 2 * pm;
-  const bool two = ra + 1 < rows;
-  const size_t bins = (size_t)(n >> 1) + 1;
-  const float2* sa = spec + (size_t)(ra / mics) * bins;
-  const float2* sb = spec + (size_t)((two ? ra + 1 : ra) / mics) * bins;
-  const float* ta = tau + (size_t)ra * paths;
-  const float* ga = gain + (size_t)ra * paths;
   stage_split_twiddles<split_where<S>()>(stw, tw, n1, n2, true);
   const auto hv = stage_split_lo_hi<kHi, split_where<S>()>(lo, hi, tw, n1,
                                                             n2);
-  const int tasks = pair_tasks<S>(b, n2);
-  for (int t = threadIdx.x; t < tasks; t += blockDim.x) {
-    const PairTask p = pair_task<S>(t, b, n1, n2, ld);
-    const float2 ya = cmul(sa[p.q], mic_response(ta, ga, paths, p.q, n));
-    float2 yb = make_float2(0.0f, 0.0f);
-    if (two)
-      yb = cmul(sb[p.q],
-                mic_response(ta + paths, ga + paths, paths, p.q, n));
-    store_pair(work, p, n, ya, yb);
-  }
+  render_gather<S>(spec, tau, gain, rows, mics, paths, pm, b, n1, n2, ld,
+                   work);
   palt::block_fft<S>(work, 1, ld, n2, stw, -1.0f);
   store_rows<S>(work, z + (size_t)pm * n, lo, hv, b, n1, n2, ld);
+}
+
+// K3's (and K5's) mix row pass of the three-pass split (above 2^26):
+// `render_spec_rows` at n2 = 8,192 in strips of S = 2 rows (row k1 and
+// its partner; block 0 rows 0 and n1/2), 1,024 threads, the rows written
+// back without the conjugate twiddle, which pass B' takes (as
+// `corr_rows_long` leaves it): no n1- or n2-point table, only the
+// n2-point sub-twiddles of its inverse row DFTs (163,968 bytes).
+template <int S>
+__global__ void __launch_bounds__(1024)
+render_spec_rows_long(const float2* __restrict__ spec,
+                      const float* __restrict__ tau,
+                      const float* __restrict__ gain, int rows, int mics,
+                      int paths, int n1, int n2,
+                      const float2* __restrict__ tw,
+                      float2* __restrict__ z) {
+  float2* stw = palt::fft_shared();
+  float2* work = stw + (n2 >> 1);
+  const int ld = row_ld<S>(n2);  // conflict-free half-warps
+  const int n = n1 * n2;
+  const int pm = blockIdx.y;
+  const int b = blockIdx.x;
+  stage_split_twiddles<1>(stw, tw, n1, n2, true);
+  render_gather<S>(spec, tau, gain, rows, mics, paths, pm, b, n1, n2, ld,
+                   work);
+  palt::block_fft<S>(work, 1, ld, n2, stw, -1.0f);
+  store_rows_long<S>(work, z + (size_t)pm * n, b, n1, n2, ld);
 }
 
 // Render pass 3.  Grid (n2 / S column strips, packed mic rows): the
@@ -2103,6 +2011,32 @@ cudaError_t render_cols_launch(int packed, int n1, int n2, const float2* tw,
                    (n1 / 2 + n1 * S) * (int)sizeof(float2), s>>>(n1, n2, tw,
                                                                  z);
   return cudaGetLastError();
+}
+
+// Pass A' of K3's (and K5's) render on the three-pass split,
+// `render_cols` there.  Grid as pass A's (n1b * n2 / S blocks (j1b,
+// strip)) over the packed mic rows c: `long_cols_a_inverse`, then sample
+// n2 (n1b j1a + j1b) + j2 of the packed inverse, unscaled, to its natural
+// place in row c of z (runs of S = 16 points, 128 bytes): what
+// `render_cols` leaves for the finish.  A' writes other rows than it
+// reads, so z is not y.
+template <int S>
+__global__ void __launch_bounds__(1024)
+long_cols_render(const float2* __restrict__ y, int n1a, int n1b, int n2,
+                 const float2* __restrict__ tw, float2* __restrict__ z) {
+  float2* stw = palt::fft_shared();
+  float2* buf = stw + (n1a >> 1);
+  const size_t n = (size_t)n1a * n1b * n2;
+  const int c = blockIdx.y;
+  const int strips = n2 / S;
+  const int j1b = blockIdx.x / strips;
+  const int c0 = (blockIdx.x - j1b * strips) * S;
+  const LongTables t = long_tables(tw, n1a, n1b, n2);
+  long_cols_a_inverse<S>(y + (size_t)c * n, t, n1a, n1b, n2, j1b, c0, stw,
+                         buf);
+  float2* zc = z + (size_t)c * n;
+  for (int idx = threadIdx.x; idx < n1a * S; idx += blockDim.x)
+    zc[(size_t)(n1b * (idx / S) + j1b) * n2 + c0 + idx % S] = buf[idx];
 }
 
 // GCC pass 2.  Grid (n1 / S, scenes, groups): block (b, scene, g) holds
@@ -2200,7 +2134,7 @@ __device__ __forceinline__ void arg_unkey(unsigned long long key, float& v,
 // GCC pass 3.  Grid (n2 / S column strips, scenes * couples): the
 // inverse column DFTs, times 1/n, of packed cross row scene * couples + c
 // (pairs 2c and 2c+1 as its real and imaginary parts); the window's
-// samples (j < w or j >= n - w, the lags of `last_pass_window`); each
+// samples (j < w or j >= n - w: the lags [-w, w) of `WindowOut`); each
 // block's sums of |corr| (a block tree) into part (scenes * couples, 2,
 // blocks) and its (max, smallest index) into keys by 64-bit atomicMax.
 // The row's last block (counted in count) sums the partials in block
@@ -2384,6 +2318,52 @@ cudaError_t render_spectra(const float* base, int scenes, int len,
   });
 }
 
+// The render stage on the three-pass split (above 2^26, to 2^30; n = n1 *
+// n2, n1 = n1a * n1b): K4a's three passes over the base rows (two scenes a
+// packed row) into their half spectra spec (scenes, n/2 + 1) through zb
+// (ceil(scenes / 2), n; may be z, which is written only after,
+// `long_spectra`), `render_spec_rows_long` (rs = 2 rows a strip) into z
+// (ceil(scenes * mics / 2), n), B' in place and A' (`long_cols_render`, cs
+// = kStrip columns) into zout (as z), which then holds the unscaled
+// packed inverse of the mixes in natural order, as `render_spectra` leaves
+// it in z.  Bound: device memory, as `render_spectra` with one more pass
+// of each packed row.
+cudaError_t render_long(const float* base, int scenes, int len,
+                        const float* tau, const float* gain, int mics,
+                        int paths, int n, int n1, int n1a, int cs, int s2,
+                        int rs, const float2* tw, float2* zb, float2* spec,
+                        float2* z, float2* zout, cudaStream_t s) {
+  constexpr int S = palt::kStrip;
+  constexpr int kRows = 2;
+  const int n2 = n / n1;
+  const int n1b = n1 / n1a;
+  const int rows = scenes * mics;
+  const int packed = (rows + 1) / 2;
+  if (cs != S || rs != kRows) return cudaErrorInvalidValue;
+  cudaError_t err = long_spectra(RowLoad{base, scenes, len}, scenes, n, n1,
+                                 n1a, cs, s2, tw, zb, spec, s);
+  if (err != cudaSuccess) return err;
+  err = palt::allow_smem<render_spec_rows_long<kRows>>();
+  if (err != cudaSuccess) return err;
+  render_spec_rows_long<kRows><<<dim3(n1 / kRows, packed),
+                                 palt::fft_threads(n2, kRows),
+                                 (n2 / 2 + kRows * row_ld<kRows>(n2)) *
+                                     (int)sizeof(float2),
+                                 s>>>(spec, tau, gain, rows, mics, paths, n1,
+                                      n2, tw, z);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = long_cols_b_launch<true>(packed, n1a, n1b, n2, tw, z, s);
+  if (err != cudaSuccess) return err;
+  err = palt::allow_smem<long_cols_render<S>>();
+  if (err != cudaSuccess) return err;
+  long_cols_render<S><<<dim3(n1b * (n2 / S), packed),
+                        palt::fft_threads(n1a, S),
+                        (n1a / 2 + n1a * S) * (int)sizeof(float2), s>>>(
+      z, n1a, n1b, n2, tw, zout);
+  return cudaGetLastError();
+}
+
 // GCC pass 2 (`gcc_rows`) over the packed mic rows zm (after pass 1) of
 // `scenes` scenes -> the packed cross rows zc (scenes * couples, n);
 // keys and count are K2's (null for K1).
@@ -2471,8 +2451,7 @@ cudaError_t gcc_split(Load load, int scenes, int mics, const int* pairs_i,
 // The TPU kernels kept a row's butterfly planes in VMEM; a 65,536-point
 // row (512 KB) does not fit a block's 227 KB.  K1, K2 and K5 take one
 // route a shape (`GccRoute`, ``cuda_fft.gcc_route`` from nfft and the mic
-// count), so that K5 and K3 then K2 compute the same bits; above 2^26 K1
-// alone takes the long route (``cuda_fft.gcc_all_route``):
+// count), so that K5 and K3 then K2 compute the same bits:
 //
 // block (n <= 4,096 where a scene's packed mic rows and a spare row fit
 //      one block): `gcc_block` / `window_block`, one launch.
@@ -2492,12 +2471,12 @@ cudaError_t gcc_split(Load load, int scenes, int mics, const int* pairs_i,
 //      `fft_real_block` into the spectra; `corr_block` with
 //      `PairIndexLoad`, a block a packed cross row, and K1's (`CorrOut`)
 //      or K2's (`WindowOut`) epilogue.
-// long (K1 above 2^26, to 2^30):  the three-pass split through the
-//      spectra: K4a's passes A and B and `fft_real_rows` over the mic rows
-//      into their spectra; `corr_rows_long` with `PairIndexLoad`, pass B'
-//      and `long_cols_corr` (`corr_long`).
-// passes (K2 and K5 above 2^26):  the radix-2 passes through device
-//      memory.
+// long (above 2^26, to 2^30):  the three-pass split through the spectra:
+//      K4a's passes A and B and `fft_real_rows` over the mic rows into
+//      their spectra (`long_spectra`); `corr_rows_long` with
+//      `PairIndexLoad` (K2's keys and counters zeroed there), pass B' and
+//      `long_cols_corr` (K1, `corr_long`) or `long_cols_window` (K2, K5,
+//      `window_long`).
 //
 // K9:  `corr_rows` with `RowPairLoad` (rows 2c and 2c + 1 of a and b),
 //      `corr_cols`; `corr_block` with `RowPairLoad` up to 4,096;
@@ -2715,25 +2694,33 @@ cudaError_t corr_rows_launch(Load load, int rows_c, const float* band,
   });
 }
 
-// K1's and K9's row pass of the three-pass split (above 2^26): `corr_rows`
-// at n2 = 8,192 in strips of S = 2 rows (row k1 and its partner n1 - k1;
-// block 0 rows 0 and n1/2), 1,024 threads, the rows written back without
-// the conjugate twiddle W_n^{-j2 k1}, which pass B' takes (as
-// `boot_rows_long` leaves it): so it holds no n1-point table (128 KB at
-// 2^27, too many beside the strip) and no n2-point one, only the n2-point
-// sub-twiddles of its inverse row DFTs, staged from their contiguous half
-// table.  The gather, the whitening and the band are `corr_rows`'.
+// The row pass of K9's and the GCCs' three-pass split (above 2^26):
+// `corr_rows` at n2 = 8,192 in strips of S = 2 rows (row k1 and its
+// partner n1 - k1; block 0 rows 0 and n1/2), 1,024 threads, the rows
+// written back without the conjugate twiddle W_n^{-j2 k1}, which pass B'
+// takes (as `boot_rows_long` leaves it): so it holds no n1-point table
+// (128 KB at 2^27, too many beside the strip) and no n2-point one, only
+// the n2-point sub-twiddles of its inverse row DFTs, staged from their
+// contiguous half table.  The gather, the whitening and the band are
+// `corr_rows`', and so is the clearing of K2's and K5's argmax keys and
+// block counter for `long_cols_window` where keys is not null.
 template <int S, class Load>
 __global__ void __launch_bounds__(1024)
 corr_rows_long(Load load, const float* __restrict__ band, float eps, int n1,
                int n2, const float2* __restrict__ tw,
-               float2* __restrict__ zc) {
+               float2* __restrict__ zc,
+               unsigned long long* __restrict__ keys,
+               unsigned int* __restrict__ count) {
   float2* stw = palt::fft_shared();
   float2* work = stw + (n2 >> 1);
   const int ld = row_ld<S>(n2);  // conflict-free half-warps
   const int n = n1 * n2;
   const int c = blockIdx.y;
   const int blk = blockIdx.x;
+  if (keys != nullptr && blk == 0 && threadIdx.x < 2) {
+    keys[2 * (size_t)c + threadIdx.x] = 0ull;
+    if (threadIdx.x == 0) count[c] = 0u;
+  }
   const CorrPair src = load.pair(c, (size_t)(n >> 1) + 1);
   stage_split_twiddles<1>(stw, tw, n1, n2, true);
   corr_gather<S>(src, band, eps, blk, n1, n2, ld, work);
@@ -2777,6 +2764,126 @@ long_cols_corr(const float2* __restrict__ y, int num_pairs, int couples,
   }
 }
 
+// Pass A' with K2's and K5's epilogue, `window_cols` of the three-pass
+// split.  Grid as pass A's (n1b * n2 / S blocks (j1b, strip)) over the
+// packed cross rows rc = scene * couples + c (pairs 2c and 2c + 1 as the
+// real and imaginary parts): `long_cols_a_inverse`, then the samples
+// times 1/n: the window's (j < w or j >= n - w) into win, the block's
+// sums of |corr| (a block tree) into part (rows, 2, blocks) and its (max,
+// smallest index) into keys by 64-bit atomicMax (`arg_key`).  The row's
+// last block (counted in count) sums the row's partials in a fixed order,
+// thread t those of blocks t, t + blockDim.x, ... in turn and then
+// `block_reduce`'s tree, and writes the statistics: no float atomics, so
+// the result does not depend on the order in which the blocks run.  A
+// row has 65,536 blocks at 2^27 (131,072 at 2^30), which one thread would
+// sum in milliseconds; the block's 128 to 512 threads sum them at once.
+// n <= 2^30 and every sample index fit an int.
+template <int S>
+__global__ void __launch_bounds__(1024)
+long_cols_window(const float2* __restrict__ y, int num_pairs, int couples,
+                 int n1a, int n1b, int n2, int w,
+                 const float2* __restrict__ tw, float* __restrict__ win,
+                 float* __restrict__ stats, float* part,
+                 unsigned long long* keys, unsigned int* count) {
+  __shared__ float red[64];
+  __shared__ int si[32];
+  __shared__ bool last;
+  float2* stw = palt::fft_shared();
+  float2* buf = stw + (n1a >> 1);
+  const int n = n1a * n1b * n2;
+  const int rc = blockIdx.y;
+  const int scene = rc / couples;
+  const int p0 = 2 * (rc - scene * couples);
+  const bool two = p0 + 1 < num_pairs;
+  const int strips = n2 / S;
+  const int j1b = blockIdx.x / strips;
+  const int c0 = (blockIdx.x - j1b * strips) * S;
+  const int nb = gridDim.x;
+  const LongTables t = long_tables(tw, n1a, n1b, n2);
+  long_cols_a_inverse<S>(y + (size_t)rc * n, t, n1a, n1b, n2, j1b, c0, stw,
+                         buf);
+  const float scale = 1.0f / (float)n;
+  const size_t q0 = (size_t)scene * num_pairs + p0;
+  float* w0 = win + q0 * (size_t)(2 * w);
+  float* w1 = w0 + 2 * w;
+  float sum0 = 0.0f, sum1 = 0.0f;
+  float max0 = -INFINITY, max1 = -INFINITY;
+  int idx0 = INT_MAX, idx1 = INT_MAX;
+  for (int idx = threadIdx.x; idx < n1a * S; idx += blockDim.x) {
+    const int j = (n1b * (idx / S) + j1b) * n2 + c0 + idx % S;
+    const float2 v = buf[idx];
+    const float a = v.x * scale;
+    const float d = v.y * scale;
+    sum0 += fabsf(a);
+    sum1 += fabsf(d);
+    arg_update(max0, idx0, a, j);
+    arg_update(max1, idx1, d, j);
+    const int at = j < w ? w + j : (j >= n - w ? j - (n - w) : -1);
+    if (at >= 0) {
+      w0[at] = a;
+      if (two) w1[at] = d;
+    }
+  }
+  sum0 = block_sum(sum0, red);
+  sum1 = block_sum(sum1, red);
+  block_argmax(max0, idx0, red, si);
+  block_argmax(max1, idx1, red, si);
+  float* pr = part + (size_t)rc * 2 * nb;
+  if (threadIdx.x == 0) {
+    pr[blockIdx.x] = sum0;
+    pr[nb + blockIdx.x] = sum1;
+    atomicMax(keys + 2 * rc, arg_key(max0, idx0));
+    atomicMax(keys + 2 * rc + 1, arg_key(max1, idx1));
+    __threadfence();
+    last = atomicAdd(count + rc, 1u) == (unsigned int)(nb - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float total[2] = {0.0f, 0.0f};
+  for (int i = threadIdx.x; i < nb; i += blockDim.x) {
+    total[0] += __ldcg(pr + i);
+    total[1] += __ldcg(pr + nb + i);
+  }
+  block_reduce<false>(total, red);
+  if (threadIdx.x == 0) {
+    float m;
+    int j;
+    float* s0 = stats + q0 * 3;
+    arg_unkey(atomicAdd(keys + 2 * rc, 0ull), m, j);
+    s0[0] = total[0] / (float)n;
+    s0[1] = m;
+    s0[2] = (float)j;
+    if (two) {
+      arg_unkey(atomicAdd(keys + 2 * rc + 1, 0ull), m, j);
+      s0[3] = total[1] / (float)n;
+      s0[4] = m;
+      s0[5] = (float)j;
+    }
+  }
+}
+
+// `corr_rows_long` over `rows_c` packed cross rows of load into zc, strips
+// of rs = 2 rows; keys and count: K2's and K5's (null for K1 and K9).
+template <class Load>
+cudaError_t corr_rows_long_launch(Load load, int rows_c, const float* band,
+                                  float eps, int n1, int n2, int rs,
+                                  const float2* tw, float2* zc,
+                                  unsigned long long* keys,
+                                  unsigned int* count, cudaStream_t s) {
+  constexpr int kRows = 2;
+  if (rs != kRows) return cudaErrorInvalidValue;
+  const cudaError_t err = palt::allow_smem<corr_rows_long<kRows, Load>>();
+  if (err != cudaSuccess) return err;
+  corr_rows_long<kRows, Load><<<dim3(n1 / kRows, rows_c),
+                                palt::fft_threads(n2, kRows),
+                                (n2 / 2 + kRows * row_ld<kRows>(n2)) *
+                                    (int)sizeof(float2),
+                                s>>>(load, band, eps, n1, n2, tw, zc, keys,
+                                     count);
+  return cudaGetLastError();
+}
+
 // K9 and K1's back half on the three-pass split (n = n1 * n2, n1 = n1a *
 // n1b): `corr_rows_long` over `rows_c` = scenes * couples packed cross rows
 // given by load (rs = 2 rows a strip), B' and A' with the correlations
@@ -2788,18 +2895,11 @@ cudaError_t corr_long(Load load, int rows_c, int num_pairs,
                       int cs, int rs, const float2* tw, float2* zc,
                       float* out, cudaStream_t s) {
   constexpr int S = palt::kStrip;
-  constexpr int kRows = 2;
   const int n2 = n / n1;
   const int n1b = n1 / n1a;
-  if (cs != S || rs != kRows) return cudaErrorInvalidValue;
-  cudaError_t err = palt::allow_smem<corr_rows_long<kRows, Load>>();
-  if (err != cudaSuccess) return err;
-  corr_rows_long<kRows, Load><<<dim3(n1 / kRows, rows_c),
-                                palt::fft_threads(n2, kRows),
-                                (n2 / 2 + kRows * row_ld<kRows>(n2)) *
-                                    (int)sizeof(float2),
-                                s>>>(load, band, eps, n1, n2, tw, zc);
-  err = cudaGetLastError();
+  if (cs != S) return cudaErrorInvalidValue;
+  cudaError_t err = corr_rows_long_launch(load, rows_c, band, eps, n1, n2, rs,
+                                          tw, zc, nullptr, nullptr, s);
   if (err != cudaSuccess) return err;
   err = long_cols_b_launch<true>(rows_c, n1a, n1b, n2, tw, zc, s);
   if (err != cudaSuccess) return err;
@@ -2808,6 +2908,37 @@ cudaError_t corr_long(Load load, int rows_c, int num_pairs,
   long_cols_corr<S><<<dim3(n1b * (n2 / S), rows_c), palt::fft_threads(n1a, S),
                       (n1a / 2 + n1a * S) * (int)sizeof(float2), s>>>(
       zc, num_pairs, (num_pairs + 1) / 2, n1a, n1b, n2, tw, out);
+  return cudaGetLastError();
+}
+
+// K2's back half on the three-pass split (K5's too): `corr_rows_long` over
+// `rows_c` = scenes * couples packed cross rows given by load (clearing
+// keys and count), B' and A' with the window and the statistics
+// (`long_cols_window`, cs = kStrip columns) into win / stats, through zc
+// (rows_c, n) in place; part (rows_c * 2 * n1b * n2 / cs) the partials.
+template <class Load>
+cudaError_t window_long(Load load, int rows_c, int num_pairs,
+                        const float* band, float eps, int wq, int n, int n1,
+                        int n1a, int cs, int rs, const float2* tw,
+                        float2* zc, unsigned long long* keys,
+                        unsigned int* count, float* part, float* win,
+                        float* stats, cudaStream_t s) {
+  constexpr int S = palt::kStrip;
+  const int n2 = n / n1;
+  const int n1b = n1 / n1a;
+  if (cs != S) return cudaErrorInvalidValue;
+  cudaError_t err = corr_rows_long_launch(load, rows_c, band, eps, n1, n2, rs,
+                                          tw, zc, keys, count, s);
+  if (err != cudaSuccess) return err;
+  err = long_cols_b_launch<true>(rows_c, n1a, n1b, n2, tw, zc, s);
+  if (err != cudaSuccess) return err;
+  err = palt::allow_smem<long_cols_window<S>>();
+  if (err != cudaSuccess) return err;
+  long_cols_window<S><<<dim3(n1b * (n2 / S), rows_c),
+                        palt::fft_threads(n1a, S),
+                        (n1a / 2 + n1a * S) * (int)sizeof(float2), s>>>(
+      zc, num_pairs, (num_pairs + 1) / 2, n1a, n1b, n2, wq * 128, tw, win,
+      stats, part, keys, count);
   return cudaGetLastError();
 }
 
@@ -2831,7 +2962,7 @@ struct CorrOut {
 
 // K2's and K5's epilogue of `gcc_body` (`window_block`) and, on the
 // spectra block route, of `corr_block`: both correlations times
-// 1/n, reduced as `last_pass_window` reduces them: the lags [-w, w) into
+// 1/n, reduced to the lags [-w, w) and three statistics: the lags into
 // win (scenes, num_pairs, 2w) (window sample s holds natural index n - w +
 // s, then s - w) and stats (scenes, num_pairs, 3): mean |corr|, the
 // maximum and the smallest natural index attaining it (-0 taken as +0, so
@@ -2893,7 +3024,7 @@ struct WindowOut {
 // them: K1's and K2's rows, K5's finished signals) and transforms them in
 // shared memory; then for every gridDim.y-th couple c from the g-th it
 // forms the whitened, band-masked cross-spectra of pairs 2c and 2c + 1
-// (`gcc_cross`'s arithmetic) as one packed Hermitian row in the spare row,
+// (`whiten` times the band) as one packed Hermitian row in the spare row,
 // runs its inverse and hands it to `epi` (K1: `CorrOut`; K2 and K5:
 // `WindowOut`).  Needs blockDim.x >= fft_threads(n, 1), whole warps.
 template <class Load, class Epilogue>
@@ -3043,8 +3174,8 @@ cudaError_t corr_block_launch(Load load, int rows_c, int num_pairs,
 // mics) (any mic count: mic rows are numbered scene * mics + mic, so a
 // packed row of an odd count may hold the last mic of scene 2cb and the
 // first of 2cb + 1).  For every gridDim.y-th of them from the g-th: the
-// mixes (`render_mix`'s arithmetic, mic row r from the spectrum of scene r
-// / mics) packed two mic rows a Hermitian row in the work row, its
+// mixes (`mic_response` times the spectrum of scene r / mics for mic row
+// r) packed two mic rows a Hermitian row in the work row, its
 // inverse, then for its two mic rows at once the scale 1/n, the fade, the
 // trim and `finish_rows` in shared memory; the finished rows go to out
 // (rows, out_len) (K3) or, zero-padded to n, to packed row pm of `packed`
@@ -3243,19 +3374,21 @@ cudaError_t spectra_block(Load load, int scenes, int mics, const int* pairs_i,
       epi, s);
 }
 
-// K2's windowed-GCC stage (K5's too) on `route`, every route but the
-// passes, for the mic rows given by load (rows scene * mics + mic) of
-// `scenes` scenes -> win / stats: one block a scene (`window_block`); the
-// split with `gcc_rows` through zm and zc (`gcc_split`); the split
-// through the spectra (`spectra_cross` through zm, spec and zc, then
-// `window_cols` with strips of cs columns); one block a packed cross row
-// through spec (`spectra_block` with `WindowOut`).  keys, count and part
-// hold the split's partials.
+// K2's windowed-GCC stage (K5's too) on `route`, for the mic rows given
+// by load (rows scene * mics + mic) of `scenes` scenes -> win / stats: one
+// block a scene (`window_block`); the split with `gcc_rows` through zm and
+// zc (`gcc_split`); the split through the spectra (`spectra_cross` through
+// zm, spec and zc, then `window_cols` with strips of cs columns); one
+// block a packed cross row through spec (`spectra_block` with
+// `WindowOut`); the three-pass split through the spectra (n1 = n1a * n1b:
+// `long_spectra` through zm, which may not be the loader's buffer, into
+// spec, then `window_long` through zc).  keys, count and part hold the
+// split's partials.
 template <class Load>
 cudaError_t window_route(Load load, int route, int scenes, int mics,
                          const int* pairs_i, const int* pairs_j,
                          int num_pairs, const float* band, float eps, int wq,
-                         int n, int n1, int cs, int s2, int rs,
+                         int n, int n1, int cs, int s2, int rs, int n1a,
                          const float2* tw, float2* zm, float2* spec,
                          float2* zc, unsigned long long* keys,
                          unsigned int* count, float* part, float* win,
@@ -3271,6 +3404,15 @@ cudaError_t window_route(Load load, int route, int scenes, int mics,
     return spectra_block(load, scenes, mics, pairs_i, pairs_j, num_pairs,
                          band, eps, n, block_threads(n), tw, spec,
                          WindowOut{win, stats, wq * 128}, s);
+  const PairIndexLoad pairs{spec, pairs_i, pairs_j, num_pairs, mics};
+  const int rows_c = scenes * ((num_pairs + 1) / 2);
+  if (route == kRouteLong) {
+    const cudaError_t err = long_spectra(load, scenes * mics, n, n1, n1a, cs,
+                                         s2, tw, zm, spec, s);
+    if (err != cudaSuccess) return err;
+    return window_long(pairs, rows_c, num_pairs, band, eps, wq, n, n1, n1a,
+                       cs, rs, tw, zc, keys, count, part, win, stats, s);
+  }
   if (route != kRouteSpectra) return cudaErrorInvalidValue;
   const cudaError_t err =
       spectra_cross(load, scenes, mics, pairs_i, pairs_j, num_pairs, band,
@@ -3302,45 +3444,28 @@ cudaError_t corr_split(const float2* a, const float2* b, int rows,
 
 // ---- stages shared by the entry points -----------------------------------
 
-// Base rows (scenes, len) -> packed inverse of the per-mic mixes (rows
-// scene * mics + mic, unscaled), in z0 or z1 (the returned pointer).
-float2* render_stage(const float* base, int scenes, int len,
-                     const float* tau, const float* gain, int mics,
-                     int paths, int n, const float2* tw, float2* zb0,
-                     float2* zb1, float2* z0, float2* z1, cudaStream_t s) {
-  const int packed_b = (scenes + 1) / 2;
-  const int rows = scenes * mics;
-  const int couples = (rows + 1) / 2;
-  pack_rows<<<dim3(palt::pass_blocks(n), packed_b), kThreads, 0, s>>>(
-      base, scenes, len, len, n, zb0);
-  float2* spec = fft_rows(zb0, zb1, tw, n, packed_b, 0, log2_int(n), s);
-  render_mix<<<dim3(bin_blocks(n), couples), kThreads, 0, s>>>(
-      spec, tau, gain, rows, mics, paths, n, z0);
-  return fft_rows(z0, z1, tw, n, couples, 1, log2_int(n), s);
-}
-
 // K3's render stage (K5's too) on `route`, every route but one block:
 // base rows (scenes, len) -> the unscaled packed inverse of the mixes
 // (rows scene * mics + mic) in *sig: z0 on the split with `render_rows`
-// (through zb0) and through the base rows' spectra (through zb0 and
-// spec), z0 or z1 on the radix-2 passes (through zb0 / zb1).
+// (through zb) and through the base rows' spectra (through zb and spec),
+// z1 on the three-pass split (`render_long` through zb, spec and z0).
 cudaError_t render_route(const float* base, int scenes, int len,
                          const float* tau, const float* gain, int mics,
                          int paths, int n, int n1, int route, int cs, int s2,
-                         int rs, const float2* tw, float2* zb0, float2* zb1,
+                         int rs, int n1a, const float2* tw, float2* zb,
                          float2* z0, float2* z1, float2* spec, float2** sig,
                          cudaStream_t s) {
   *sig = z0;
   if (route == kRouteSpectra)
     return render_spectra(base, scenes, len, tau, gain, mics, paths, n, n1,
-                          cs, s2, rs, tw, zb0, spec, z0, s);
+                          cs, s2, rs, tw, zb, spec, z0, s);
   if (route == kRouteRows)
     return render_split(base, scenes, len, tau, gain, mics, paths, n, n1, tw,
-                        zb0, z0, s);
-  if (route != kRoutePasses) return cudaErrorInvalidValue;
-  *sig = render_stage(base, scenes, len, tau, gain, mics, paths, n, tw, zb0,
-                      zb1, z0, z1, s);
-  return cudaGetLastError();
+                        zb, z0, s);
+  if (route != kRouteLong) return cudaErrorInvalidValue;
+  *sig = z1;
+  return render_long(base, scenes, len, tau, gain, mics, paths, n, n1, n1a,
+                     cs, s2, rs, tw, zb, spec, z0, z1, s);
 }
 
 // The finish of the packed inverse z's mic rows (rows scene * mics + mic)
@@ -3371,23 +3496,6 @@ cudaError_t finish_launch(float2* z, int rows, int n, int mics, int out_len,
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
-}
-
-// Forward spectra of rows scene * mics + mic (packed) -> win / stats of
-// every pair of every scene (K2's back half).
-void window_stage(const float2* spec, int scenes, int mics,
-                  const int* pairs_i, const int* pairs_j, int num_pairs,
-                  const float* band, float eps, int wq, int n,
-                  const float2* tw, float2* c0, float2* c1, float* win,
-                  float* stats, cudaStream_t s) {
-  const int couples = (num_pairs + 1) / 2;
-  const int rows = scenes * couples;
-  gcc_cross<<<dim3(bin_blocks(n), rows), kThreads, 0, s>>>(
-      spec, pairs_i, pairs_j, num_pairs, mics, couples, band, eps, n, c0);
-  float2* part = fft_rows(c0, c1, tw, n, rows, 1, log2_int(n) - 1, s);
-  last_pass_window<<<rows, kRowThreads, 0, s>>>(part, tw, n, num_pairs,
-                                                couples, wq * 128,
-                                                1.0f / (float)n, win, stats);
 }
 
 }  // namespace
@@ -3450,7 +3558,6 @@ int palt_gcc_all_pairs(const float* x, int scenes, int mics, int len, int n,
                        void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int rows = scenes * mics;
-  const int packed = (rows + 1) / 2;
   const int couples = (num_pairs + 1) / 2;
   const int cross = scenes * couples;
   const RowLoad load{x, rows, len};
@@ -3483,11 +3590,8 @@ int palt_gcc_all_pairs(const float* x, int scenes, int mics, int len, int n,
     });
   }
   if (route != kRouteLong) return (int)cudaErrorInvalidValue;
-  cudaError_t err =
-      long_forward(load, packed, n1a, n1 / n1a, n / n1, cs, tw, spec0, s);
-  if (err != cudaSuccess) return (int)err;
-  err = (cudaError_t)fft_real_rows_launch(spec0, rows, n1, n / n1, s2, tw,
-                                          spec1, s);
+  const cudaError_t err =
+      long_spectra(load, rows, n, n1, n1a, cs, s2, tw, spec0, spec1, s);
   if (err != cudaSuccess) return (int)err;
   const PairIndexLoad pairs{spec1, pairs_i, pairs_j, num_pairs, mics};
   return (int)corr_long(pairs, cross, num_pairs, band, eps, n, n1, n1a, cs, rs,
@@ -3498,35 +3602,22 @@ int palt_gcc_all_pairs(const float* x, int scenes, int mics, int len, int n,
 // correlation windows and stats (scenes, num_pairs, 3).  By route
 // (`window_route`): one block a scene (`window_block`), no buffer;
 // `gcc_rows` on the split n = n1 * n2 (`gcc_split`) through spec0 and c0;
-// the split through the spectra, K1's buffers and strips (spec0 K4a's
+// the split through the spectra and, above 2^26, the three-pass split
+// through them (n1 = n1a * n1b), K1's buffers and strips (spec0 K4a's
 // packed rows, spec1 the spectra, c0 the cross rows; may be spec0); one
 // block a packed cross row through the spectra in spec1; the split routes
-// with keys, count and part; the radix-2 passes through spec0 / spec1 and
-// c0 / c1.
+// with keys, count and part.  n1a is 0 off kRouteLong.
 int palt_gcc_windowed(const float* x, int scenes, int mics, int len, int n,
-                      int n1, int route, int cs, int s2, int rs,
+                      int n1, int route, int cs, int s2, int rs, int n1a,
                       const int* pairs_i, const int* pairs_j, int num_pairs,
                       const float* band, float eps, int wq, const float2* tw,
-                      float2* spec0, float2* spec1, float2* c0, float2* c1,
+                      float2* spec0, float2* spec1, float2* c0,
                       unsigned long long* keys, unsigned int* count,
                       float* part, float* win, float* stats, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int rows = scenes * mics;
-  if (route != kRoutePasses)
-    return (int)window_route(RowLoad{x, rows, len}, route, scenes, mics,
-                             pairs_i, pairs_j, num_pairs, band, eps, wq, n,
-                             n1, cs, s2, rs, tw, spec0, spec1, c0, keys,
-                             count, part, win, stats, s);
-  const int packed = (rows + 1) / 2;
-  pack_rows<<<dim3(palt::pass_blocks(n), packed), kThreads, 0, s>>>(
-      x, rows, len, len, n, spec0);
-  PALT_CHECK();
-  float2* spec = fft_rows(spec0, spec1, tw, n, packed, 0, log2_int(n), s);
-  PALT_CHECK();
-  window_stage(spec, scenes, mics, pairs_i, pairs_j, num_pairs, band, eps,
-               wq, n, tw, c0, c1, win, stats, s);
-  PALT_CHECK();
-  return 0;
+  return (int)window_route(RowLoad{x, scenes * mics, len}, route, scenes,
+                           mics, pairs_i, pairs_j, num_pairs, band, eps, wq,
+                           n, n1, cs, s2, rs, n1a, tw, spec0, spec1, c0, keys,
+                           count, part, win, stats, (cudaStream_t)stream);
 }
 
 // K4b: s1 (n/2+1) complex, rows x (rows, len) -> out (rows,) maxima of the
@@ -3611,19 +3702,21 @@ int palt_whitened_corr(const float2* a, const float2* b, int rows, int n,
 // measurement noise at snr_db (scenes,) from seeds (scenes, 2) unless
 // snr_db is NULL.  By route (`render_route`; n1 the split's): one block a
 // packed base row (`render_block`), no buffer; the split with
-// `render_rows` through zb0 and z0; the split through the base rows'
-// spectra (`render_spectra`) through zb0 (may be z0), spec (scenes, n/2 +
+// `render_rows` through zb and z0; the split through the base rows'
+// spectra (`render_spectra`) through zb (may be z0), spec (scenes, n/2 +
 // 1) and z0, with strips of cs columns, s2 rows in K4a's pass 2 and rs
-// rows in the row pass; the radix-2 passes through zb0 / zb1 and z0 / z1.
-// Off one block the finish follows (`finish_launch`, over groups blocks a
-// packed mic row, its partials in part).
+// rows in the row pass; above 2^26 the three-pass split through them
+// (`render_long`, n1 = n1a * n1b) through zb (may be z0), spec, z0 and z1,
+// which holds the inverse.  n1a is 0 off kRouteLong.  Off one block the
+// finish follows (`finish_launch`, over groups blocks a packed mic row,
+// its partials in part).
 int palt_delay_sum(const float* base, int scenes, int len, const float* tau,
                    const float* gain, int mics, int paths, int n, int n1,
                    int out_len, const float* fade, int finalize,
                    const float* snr_db, const int* seeds, const float2* tw,
-                   float2* zb0, float2* zb1, float2* z0, float2* z1,
-                   int route, int cs, int s2, int rs, float2* spec,
-                   int groups, float* part, float* out, void* stream) {
+                   float2* zb, float2* z0, float2* z1, int route, int cs,
+                   int s2, int rs, int n1a, float2* spec, int groups,
+                   float* part, float* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (route == kRouteBlock)
     return (int)render_block_launch(base, scenes, len, tau, gain, mics,
@@ -3632,7 +3725,7 @@ int palt_delay_sum(const float* base, int scenes, int len, const float* tau,
   float2* sig = nullptr;
   const cudaError_t err =
       render_route(base, scenes, len, tau, gain, mics, paths, n, n1, route,
-                   cs, s2, rs, tw, zb0, zb1, z0, z1, spec, &sig, s);
+                   cs, s2, rs, n1a, tw, zb, z0, z1, spec, &sig, s);
   if (err != cudaSuccess) return (int)err;
   return (int)finish_launch(sig, scenes * mics, n, mics, out_len, fade,
                             finalize, snr_db, seeds, out, 0, groups, part, s);
@@ -3641,26 +3734,28 @@ int palt_delay_sum(const float* base, int scenes, int len, const float* tau,
 // K5: the whole scene.  K3's render with finalize (and noise) for every
 // scene, each finished signal written as the packed forward input of K2's
 // GCC, then K2's GCC stage.  Outputs as K2.  The render on K3's route
-// (rroute, with n1r, rcs, rs2 and rrs as K3 takes them; through zb0 /
-// zb1, z0 / z1 and, through the base rows' spectra, spec, which the GCC's
-// spectra overwrite later) with K3's finish (`finish_launch` over groups
-// blocks a packed mic row, its partials in fpart); the GCC stage on K2's
-// route (`window_route`, with n1g, cs, s2 and rs as K2 takes them) over
-// the finished signals (`PackedLoad`) in z0 or z1, where the render left
-// them: at n <= 4096 `render_block` packs them into z0; a split route
-// transforms them in place, the rows route into the cross rows c0, the
-// spectra route into the spectra spec and then the cross rows c0 (z0: the
-// packed rows are dead by then); the spectra block route into spec; the
-// radix-2 passes through the other of z0 / z1 and c0 / c1.
+// (rroute, with n1r, rcs, rs2 and rrs as K3 takes them; through zb, z0, z1
+// and, through the base rows' spectra, spec, which the GCC's spectra
+// overwrite later) with K3's finish (`finish_launch` over groups blocks a
+// packed mic row, its partials in fpart); the GCC stage on K2's route
+// (`window_route`, with n1g, cs, s2 and rs as K2 takes them) over the
+// finished signals (`PackedLoad`) where the render left them: at n <= 4096
+// `render_block` packs them into z0; the split routes transform them in
+// z0 in place, the rows route into the cross rows c0, the spectra route
+// into the spectra spec and then the cross rows c0 (z0: the packed rows
+// are dead by then); the spectra block route into spec; the three-pass
+// split, whose render leaves them in z1, through z0 into spec and then
+// the cross rows c0 (z0).  n1a (the three-pass split's, both stages') is
+// 0 off kRouteLong.
 int palt_scene_windowed(const float* base, int scenes, int len,
                         const float* tau, const float* gain, int mics,
                         int paths, int n, int n1r, int n1g, int route, int cs,
-                        int s2, int rs, int out_len, const float* fade,
-                        const float* snr_db, const int* seeds,
-                        const int* pairs_i, const int* pairs_j, int num_pairs,
-                        const float* band, float eps, int wq, const float2* tw,
-                        float2* zb0, float2* zb1, float2* z0, float2* z1,
-                        float2* c0, float2* c1, float2* spec,
+                        int s2, int rs, int n1a, int out_len,
+                        const float* fade, const float* snr_db,
+                        const int* seeds, const int* pairs_i,
+                        const int* pairs_j, int num_pairs, const float* band,
+                        float eps, int wq, const float2* tw, float2* zb,
+                        float2* z0, float2* z1, float2* c0, float2* spec,
                         unsigned long long* keys, unsigned int* count,
                         float* part, int rroute, int rcs, int rs2, int rrs,
                         int groups, float* fpart, float* win, float* stats,
@@ -3676,26 +3771,17 @@ int palt_scene_windowed(const float* base, int scenes, int len,
   } else {
     cudaError_t err =
         render_route(base, scenes, len, tau, gain, mics, paths, n, n1r,
-                     rroute, rcs, rs2, rrs, tw, zb0, zb1, z0, z1, spec, &sig,
+                     rroute, rcs, rs2, rrs, n1a, tw, zb, z0, z1, spec, &sig,
                      s);
     if (err != cudaSuccess) return (int)err;
     err = finish_launch(sig, rows, n, mics, out_len, fade, 1, snr_db, seeds,
                         nullptr, 1, groups, fpart, s);
     if (err != cudaSuccess) return (int)err;
   }
-  if (route != kRoutePasses)
-    return (int)window_route(PackedLoad{sig, rows, n}, route, scenes, mics,
-                             pairs_i, pairs_j, num_pairs, band, eps, wq, n,
-                             n1g, cs, s2, rs, tw, sig, spec, c0, keys, count,
-                             part, win, stats, s);
-  float2* other = sig == z0 ? z1 : z0;
-  float2* spectra = fft_rows(sig, other, tw, n, (rows + 1) / 2, 0,
-                             log2_int(n), s);
-  PALT_CHECK();
-  window_stage(spectra, scenes, mics, pairs_i, pairs_j, num_pairs, band, eps,
-               wq, n, tw, c0, c1, win, stats, s);
-  PALT_CHECK();
-  return 0;
+  return (int)window_route(PackedLoad{sig, rows, n}, route, scenes, mics,
+                           pairs_i, pairs_j, num_pairs, band, eps, wq, n, n1g,
+                           cs, s2, rs, n1a, tw, route == kRouteLong ? z0 : sig,
+                           spec, c0, keys, count, part, win, stats, s);
 }
 
 }  // extern "C"

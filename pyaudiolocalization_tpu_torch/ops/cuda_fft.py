@@ -9,39 +9,37 @@ wrapper               replaces                               bound on an H100
 ===================== ====================================== ==================
 fft_real              bfly_fft_real (:685)                   memory: 2 or 3*
 whitened_corr         bfly_whitened_corr (:707)              memory: 2 launches*
-gcc_all_pairs         bfly_gcc_all_pairs (:922)              memory: 1 to 4*
-gcc_windowed          bfly_gcc_windowed (:1095)              memory: 1 to 4*
+gcc_all_pairs         bfly_gcc_all_pairs (:922)              memory: 1 to 6*
+gcc_windowed          bfly_gcc_windowed (:1095)              memory: 1 to 6*
 bootstrap_peaks       bfly_bootstrap_peaks (:1227)           memory: 3 or 5*
 noise_bootstrap_peaks bfly_noise_bootstrap_peaks (:1326)     memory: 3 or 5*
-scene_windowed        bfly_scene_windowed (:1600)            memory: 2 to 12*
-delay_sum             bfly_delay_sum (:1851)                 memory: 1 to 8*
+scene_windowed        bfly_scene_windowed (:1600)            memory: 2 to 16*
+delay_sum             bfly_delay_sum (:1851)                 memory: 1 to 10*
 whiten                pallas_kernels.phat_whiten_planes (:34) memory: 16 B/bin
 ===================== ====================================== ==================
 
-(*) Above 2^26 points, to ``FFT_LONG_MAX`` (2^30), K4a, K4b, K6, K9 and
-K1 run a three-pass split (``long_plan``: K4a 3 launches, K4b and K6 5,
-K9 3, K1 6 through its mic rows' spectra), and K2, K3 and K5 the radix-2
-passes.  K1, K2 and K5's GCC take one route a shape (``gcc_route``; K1's
-``gcc_all_route``): 1 launch in one block a scene, 3 with ``gcc_rows``,
-4 through the mic rows' spectra on the split, 2 through them in one
-block.
+(*) Above 2^26 points, to ``FFT_LONG_MAX`` (2^30), every transforming
+kernel runs a three-pass split (``long_plan``: K4a 3 launches, K4b and
+K6 5, K9 3, K1's and K2's GCC 6 through the mic rows' spectra, K3's
+render 6 through the base rows' spectra); past it every wrapper raises.
+K1, K2 and K5's GCC take one route a shape (``gcc_route``): 1 launch in
+one block a scene, 3 with ``gcc_rows``, 4 through the mic rows' spectra
+on the split, 2 through them in one block, 6 on the three-pass split.
 K3's render and K5's render stage take one route a length
 (``render_route``): 1 launch in one block, 3 with ``render_rows``, 4
-through the base rows' spectra, then the finish: 1 launch, a block a mic
-row, or up to 4 spread over the card (``finish_groups``).
+through the base rows' spectra on the split, 6 on the three-pass split,
+then the finish: 1 launch, a block a mic row, or up to 4 spread over the
+card (``finish_groups``).
 
 The three kernels of K10, the TPU package's A/B tool of FFT schedules
 (``tools/mxu_rowdft_bench.py:328``), are wrapped by ``ops/rowdft.py``
 (``row_dft``, ``row_stages``, ``lane_dft``) and built into the same
 library from ``csrc/rowdft.cu``; their launches count here too.
 
-All but ``whiten`` are built on one FFT (``csrc/fft.cuh``) in two
-schedules.  ``fft_real``, ``bootstrap_peaks``, ``noise_bootstrap_peaks``,
-``gcc_all_pairs`` and ``whitened_corr`` (and K10's ``row_stages``) and,
-where ``render_route`` and ``gcc_route`` give the split, ``delay_sum``,
-``gcc_windowed`` and ``scene_windowed`` run on-chip sub-transforms: a
-block holds a strip of sequences in shared memory for all of its
-radix-16 stages, and a long row is a four-step split of two such
+All but ``whiten`` are built on one FFT (``csrc/fft.cuh``): every
+transforming kernel (and K10's ``row_stages``) runs on-chip
+sub-transforms: a block holds a strip of sequences in shared memory for
+all of its radix-16 stages, and a long row is a four-step split of two such
 launches (``fft_real_split``; the bootstrap, the render's ``render_rows``
 and the GCCs' ``gcc_rows`` routes run it forward and back in three, the
 middle launch holding rows for both directions; K9, whose input is
@@ -53,21 +51,16 @@ them, whose strips narrow to 8 at 2,048, to 4 at 4,096 and to 2 at
 the n2-point table from device memory at 8,192 (``split_hi_points``);
 ``split_plan`` gives each launch of K4a's, K4b's and K6's,
 ``spectra_plan`` each of the spectra routes', with the row strips'
-bank-spread stride; above 2^26 K4a, K4b and K6 split the n1-point
-columns again into two passes of 16-column strips, ``long_plan``, and
-so do K9 and K1, whose row pass leaves its twiddle to the inverse column
-passes), so a
-transform reads
-and writes each point once per launch (16 bytes a complex point) and is
-bound by device memory at that.  Up to 4,096 points the bootstraps, K9,
+bank-spread stride; above 2^26 every one of them splits the n1-point
+columns again into two passes of 16-column strips, ``long_plan``, the
+row passes of K4b, K6, K9 and the spectra routes leaving their twiddle
+to the inverse column passes), so a transform reads and writes each
+point once per launch (16 bytes a complex point) and is bound by device
+memory at that.  Up to 4,096 points the bootstraps, K9,
 the render (a packed base row a block) and the all-pairs and windowed
 GCCs (a scene a block up to 10 mics at 4,096, else a packed cross row a
 block through the mic rows' spectra) hold a whole row in one block, so
-K3 is one launch there, K2 one or two and K5 two or three.  Above 2^26
-K2, K3 and K5 run radix-2 Stockham passes over rows in device memory,
-one launch and 16 bytes a point per pass, about 16·log2(nfft) bytes per
-point and transform, and fuse their first or last pass into a prologue
-or epilogue.
+K3 is one launch there, K2 one or two and K5 two or three.
 The design keeps the rest of the work out of device memory where the TPU
 kernels did: real rows are packed two to a complex transform, the whitening /
 ramp synthesis runs in one pass over the spectra, two real results share
@@ -246,14 +239,14 @@ def _library() -> ctypes.CDLL:
                                    p, f, p, p, p, p, p, p],
             "palt_bootstrap_peaks": [p, p, i, i, i, i, i, i, i, f, p, p,
                                      p, p],
-            "palt_gcc_windowed": [p, i, i, i, i, i, i, i, i, i, p, p, i, p,
-                                  f, i, p, p, p, p, p, p, p, p, p, p, p],
+            "palt_gcc_windowed": [p, i, i, i, i, i, i, i, i, i, i, p, p, i,
+                                  p, f, i, p, p, p, p, p, p, p, p, p, p],
             "palt_delay_sum": [p, i, i, p, p, i, i, i, i, i, p, i, p, p, p,
-                               p, p, p, p, i, i, i, i, p, i, p, p, p],
+                               p, p, p, i, i, i, i, i, p, i, p, p, p],
             "palt_scene_windowed": [p, i, i, p, p, i, i, i, i, i, i, i, i, i,
-                                    i, p, p, p, p, p, i, p, f, i, p, p, p, p,
-                                    p, p, p, p, p, p, p, i, i, i, i, i, p, p,
-                                    p, p],
+                                    i, i, p, p, p, p, p, i, p, f, i, p, p, p,
+                                    p, p, p, p, p, p, i, i, i, i, i, p, p, p,
+                                    p],
             "palt_row_dft": [p, p, i, i, i, i, i, f, p, p, p, p, p, i, i,
                              p],
             "palt_row_stages": [p, p, i, i, i, i, i, f, p, p, p, p, p, i,
@@ -421,7 +414,7 @@ def _split_n1(nfft: int) -> int:
 
 def _long_n1a(nfft: int) -> int:
     """n1a of the three-pass split (``long_plan``) above ``FFT_SPLIT_MAX``,
-    as the entry points of K4a, K4b, K6, K9 and K1 take it; 0 below."""
+    as the entry points of every transforming kernel take it; 0 below."""
     return long_plan(nfft).n1a if nfft > FFT_SPLIT_MAX else 0
 
 
@@ -502,8 +495,8 @@ def fft_real_split(nfft: int):
     (4 columns, 2 rows) and 8192 x 8192 at ``FFT_SPLIT_MAX`` (2^26,
     strips of 2).  ``SPLIT_COLS_LONG_MAX`` picks only that orientation:
     every transforming kernel runs the split up to ``FFT_SPLIT_MAX``.
-    Above, to ``FFT_LONG_MAX`` (2^30), the three-pass split of K4a, K4b,
-    K6, K9 and K1 keeps that row side, n2 = 8,192 (a row pass's strip of
+    Above, to ``FFT_LONG_MAX`` (2^30), the three-pass split of every
+    transforming kernel keeps that row side, n2 = 8,192 (a row pass's strip of
     row k1 and its partner holds ``BLOCK_POINTS``), and n1 = nfft / 8,192,
     16,384 at 2^27 to 131,072 at 2^30, whose columns ``long_plan`` splits
     again."""
@@ -676,9 +669,8 @@ def spectra_plan(nfft: int, packed: int = 1) -> SpectraPlan:
     the contiguous copies of ``_twiddles``; the row pass keeps
     ``fft_threads`` = 1,024 threads a block there (512 of twice the
     points, as ``boot_rows``, measured 3-12 % slower on an H100;
-    PERF.md).  Above 2^26 ``split_plan`` raises: K2, K3 and K5 run the
-    radix-2 passes there, K4a, K4b, K6, K9 and K1 ``long_plan``'s
-    split."""
+    PERF.md).  Above 2^26 ``split_plan`` raises: every transforming
+    kernel runs ``long_plan``'s split there."""
     plan = split_plan(nfft, packed)
     n1, n2 = fft_real_split(nfft)
     cs = plan.cols.strip
@@ -692,8 +684,11 @@ class LongPlan(NamedTuple):
     (``long_cols_a``, and mirrored with the maxima ``long_cols_max``,
     which holds 128 bytes more); pass B (``long_cols_b``, forward and
     back); K4a's row pass (``fft_real_rows``) and K4b's and K6's
-    (``boot_rows_long``); K9's and K1's row pass (``corr_rows_long``) and
-    pass A mirrored with the correlations (``long_cols_corr``)."""
+    (``boot_rows_long``); the row pass of K9's and the GCCs' back half
+    (``corr_rows_long``), and of the render (``render_spec_rows_long``),
+    and pass A mirrored with the correlations, the window or the
+    render's inverse (``long_cols_corr``, ``long_cols_window``,
+    ``long_cols_render``)."""
     n1a: int
     n1b: int
     cols_a: SplitPass
@@ -705,7 +700,7 @@ class LongPlan(NamedTuple):
 
 
 def long_plan(nfft: int, packed: int = 1) -> LongPlan:
-    """Each launch of the three-pass split of K4a, K4b, K6, K9 and K1 at
+    """Each launch of the three-pass split of every transforming kernel at
     nfft (``FFT_SPLIT_MAX`` < nfft <= ``FFT_LONG_MAX``: 2^27 to 2^30) for
     ``packed`` packed rows a launch.  The split's n1 x n2
     (``fft_real_split``: n2 = 8,192) with n1 = n1a * n1b, n1a =
@@ -718,9 +713,11 @@ def long_plan(nfft: int, packed: int = 1) -> LongPlan:
     quarter of a 32-byte sector at 2^30 on the two-pass split).  The row
     passes as at 2^26: ``fft_real_rows_strip``'s 2 rows (row k1 and its
     partner) at the stride ``row_ld``, 163,968 bytes, and
-    ``boot_rows_long``'s and ``corr_rows_long``'s 2 rows (in 512 and 1,024
-    threads), the same bytes (no n1- or n2-point table: pass B' takes the
-    inverse twiddle); ``long_cols_corr`` pass A's strip and bytes."""
+    ``boot_rows_long``'s, ``corr_rows_long``'s and
+    ``render_spec_rows_long``'s 2 rows (in 512, 1,024 and 1,024 threads),
+    the same bytes (no n1- or n2-point table: pass B' takes the inverse
+    twiddle); ``long_cols_corr``, ``long_cols_window`` and
+    ``long_cols_render`` pass A's strip and bytes."""
     if not FFT_SPLIT_MAX < nfft <= FFT_LONG_MAX:
         raise ValueError(f"long_plan: nfft {nfft} is not on the three-pass "
                          f"split")
@@ -754,19 +751,22 @@ def _gcc_block_smem(nfft: int, mics: int) -> int:
 
 
 class GccRoute(NamedTuple):
-    """The route of K1's, K2's and K5's GCC at one shape (``gcc_route``):
-    ``kind`` (``ROUTE_*``, the kernels' ``GccRoute``), ``n1`` (0 on the
-    passes, 1 in one block, else the split's n1) and, on the spectra
-    route, the strips of the column passes and the row pass (0 elsewhere)."""
+    """The route of K1's, K2's and K5's GCC, or of K3's and K5's render, at
+    one shape (``gcc_route``, ``render_route``): ``kind`` (``ROUTE_*``, the
+    kernels' ``GccRoute``), ``n1`` (1 in one block, else the split's n1)
+    and, on the spectra and three-pass routes, the strips of the column
+    passes and the row pass (0 elsewhere)."""
     kind: int
     n1: int
     cols: int
     rows: int
 
 
-(ROUTE_PASSES, ROUTE_BLOCK, ROUTE_ROWS, ROUTE_SPECTRA, ROUTE_SPECTRA_BLOCK,
- ROUTE_LONG) = range(6)
-ROUTE_NAMES = ("passes", "block", "rows", "spectra", "spectra block", "long")
+(ROUTE_BLOCK, ROUTE_ROWS, ROUTE_SPECTRA, ROUTE_SPECTRA_BLOCK,
+ ROUTE_LONG) = range(1, 6)
+ROUTE_NAMES = {ROUTE_BLOCK: "block", ROUTE_ROWS: "rows",
+               ROUTE_SPECTRA: "spectra", ROUTE_SPECTRA_BLOCK: "spectra block",
+               ROUTE_LONG: "long"}
 
 
 def gcc_route(nfft: int, mics: int) -> GccRoute:
@@ -791,35 +791,23 @@ def gcc_route(nfft: int, mics: int) -> GccRoute:
       = 2,048 and 8 rows at n2 = 2,048, 4 rows at n2 = 4,096 (2^23), 4
       columns at n1 = 4,096 (2^24, 2^25), 2 rows at n2 = 8,192 (2^25,
       2^26) and 2 columns at n1 = 8,192 (2^26);
-    - the radix-2 passes above, as K3's render (K1 takes the three-pass
-      split there, ``gcc_all_route``)."""
+    - above, to ``FFT_LONG_MAX`` (2^30), the three-pass split through the
+      mic rows' spectra at any mic count (``ROUTE_LONG``: K4a's passes A,
+      B and ``fft_real_rows`` into the spectra, ``corr_rows_long`` with
+      the pair-indexed loader, B' and ``long_cols_corr`` or
+      ``long_cols_window``), with ``long_plan``'s column strip (16) and
+      ``corr_rows`` strip (2); past it ``fft_real_split`` raises."""
     if nfft <= FFT_REAL_ONE_BLOCK:
         if _gcc_block_smem(nfft, mics) <= SMEM_OPTIN:
             return GccRoute(ROUTE_BLOCK, 1, 0, 0)
         return GccRoute(ROUTE_SPECTRA_BLOCK, 1, 0, 0)
-    if nfft > FFT_SPLIT_MAX:
-        return GccRoute(ROUTE_PASSES, 0, 0, 0)
     n1, n2 = fft_real_split(nfft)
+    if nfft > FFT_SPLIT_MAX:
+        return _long_route(nfft)
     if (nfft <= STAGE_SPLIT_MAX
             and _row_pass_smem(n1, n2, (mics + 1) // 2 + 1) <= SMEM_OPTIN):
         return GccRoute(ROUTE_ROWS, n1, 0, 0)
     return _spectra_route(nfft)
-
-
-def gcc_all_route(nfft: int, mics: int) -> GccRoute:
-    """K1's route at nfft for ``mics`` mics a scene: ``gcc_route``'s up to
-    ``FFT_SPLIT_MAX``; above, to ``FFT_LONG_MAX``, the three-pass split
-    through the mic rows' spectra (``ROUTE_LONG``: K4a's passes A, B and
-    ``fft_real_rows`` into the spectra, ``corr_rows_long`` with the
-    pair-indexed loader, B' and ``long_cols_corr``; n1 the split's,
-    ``long_plan``'s column strip and ``corr_rows`` strip), at any mic
-    count.  K2's and K5's GCC keep ``gcc_route``'s radix-2 passes there, so
-    that K5 stays K3 then K2 to the bit."""
-    if nfft <= FFT_SPLIT_MAX:
-        return gcc_route(nfft, mics)
-    plan = long_plan(nfft)
-    return GccRoute(ROUTE_LONG, fft_real_split(nfft)[0], plan.cols_a.strip,
-                    plan.corr_rows.strip)
 
 
 def _spectra_route(nfft: int) -> GccRoute:
@@ -828,6 +816,15 @@ def _spectra_route(nfft: int) -> GccRoute:
     plan = spectra_plan(nfft)
     return GccRoute(ROUTE_SPECTRA, fft_real_split(nfft)[0],
                     plan.spec_cols.strip, plan.spec_rows.strip)
+
+
+def _long_route(nfft: int) -> GccRoute:
+    """``ROUTE_LONG`` at nfft with the split's n1, ``long_plan``'s column
+    strip and its row passes' (``corr_rows``, the same as the render's mix
+    row pass)."""
+    plan = long_plan(nfft)
+    return GccRoute(ROUTE_LONG, fft_real_split(nfft)[0], plan.cols_a.strip,
+                    plan.corr_rows.strip)
 
 
 def render_route(nfft: int) -> GccRoute:
@@ -848,59 +845,52 @@ def render_route(nfft: int) -> GccRoute:
       from n1 = 2,048 and 8 rows at n2 = 2,048, 4 rows at n2 = 4,096, 4
       columns at n1 = 4,096, 2 rows at n2 = 8,192 and 2 columns at n1 =
       8,192);
-    - the radix-2 passes above (n1 = 0), as K2's and K5's GCC.
+    - above, to ``FFT_LONG_MAX`` (2^30), the three-pass split through the
+      base rows' spectra (``ROUTE_LONG``: K4a's three passes, the mix row
+      pass ``render_spec_rows_long``, B' and ``long_cols_render``), with
+      ``gcc_route``'s strips there; past it ``fft_real_split`` raises.
 
     The mic count does not enter: the render's row passes hold one or two
     strips at any mic count."""
     if nfft <= FFT_REAL_ONE_BLOCK:
         return GccRoute(ROUTE_BLOCK, 1, 0, 0)
-    if nfft > FFT_SPLIT_MAX:
-        return GccRoute(ROUTE_PASSES, 0, 0, 0)
     n1, n2 = fft_real_split(nfft)
+    if nfft > FFT_SPLIT_MAX:
+        return _long_route(nfft)
     if _row_pass_smem(n1, n2, 2) <= SMEM_OPTIN:
         return GccRoute(ROUTE_ROWS, n1, 0, 0)
     return _spectra_route(nfft)
-
-
-def scene_stages(nfft: int, mics: int):
-    """(n1 of the render stage, n1 of the GCC stage) for ``mics`` mics a
-    scene at nfft: the n1 of ``render_route`` and of ``gcc_route``, the
-    routes of K3's render and of K2's windowed GCC (K5 runs each stage as
-    K3 and K2 run it).  Both 1 up to 4,096, the split's n1 from 8,192 to
-    2^26, 0 (the radix-2 passes) above."""
-    return render_route(nfft).n1, gcc_route(nfft, mics).n1
 
 
 def finish_groups(nfft: int, rows: int) -> int:
     """Blocks a packed mic row of K3's finish (K5's too) for a launch of
     ``rows`` mic rows at nfft: 1 (``render_finalize``, a block of 1,024
     threads a mic row) up to 2^19 and wherever the rows fill the card
-    (``FINISH_SMS`` or more); else, on the render's spectra route, enough
-    for ``FINISH_BLOCKS`` blocks (``finish_spread``), at most
+    (``FINISH_SMS`` or more); else, on the render's spectra routes (the
+    split from 2^20 and the three-pass split above 2^26), enough for
+    ``FINISH_BLOCKS`` blocks (``finish_spread``), at most
     ``FINISH_MAX_GROUPS``.  The rule reads the shape only, not the card,
     so that a call's bits do not depend on the card it runs on."""
-    if render_route(nfft).kind != ROUTE_SPECTRA or rows >= FINISH_SMS:
+    if (render_route(nfft).kind not in (ROUTE_SPECTRA, ROUTE_LONG)
+            or rows >= FINISH_SMS):
         return 1
     return min(FINISH_MAX_GROUPS, -(-FINISH_BLOCKS // ((rows + 1) // 2)))
 
 
-def _copies(n1: int) -> int:
-    """Copies of a scratch buffer that a schedule n1 of K2's, K3's or K5's
-    stages uses: none in one block, one on the split, two (ping-pong) on
-    the passes."""
-    return 0 if n1 == 1 else (1 if n1 else 2)
-
-
 def _window_scratch(rows: int, nfft: int, route: GccRoute, device):
-    """``window_cols``' partials for ``rows`` packed cross rows on the
-    split routes (``gcc_rows``, the spectra): the (max, index) keys (rows
-    * 2, int64), the block counters (rows, int32) and the per-block sums
-    of |corr| (rows * 2 * n2 / strip, float32; the column strip, 16 on
-    ``gcc_rows``, the route's on the spectra); Nones in one block and on
-    the passes."""
-    if route.kind not in (ROUTE_ROWS, ROUTE_SPECTRA):
+    """The windowed GCC's partials for ``rows`` packed cross rows on the
+    split routes (``gcc_rows``, the spectra, the three-pass split): the
+    (max, index) keys (rows * 2, int64), the block counters (rows, int32)
+    and the per-block sums of |corr| (rows * 2 * blocks float32: a block
+    a column strip of ``window_cols``, n2 / strip, the strip 16 on
+    ``gcc_rows`` and the route's on the spectra; of ``long_cols_window``
+    n1b * n2 / 16, 65,536 at 2^27); Nones in one block."""
+    if route.kind not in (ROUTE_ROWS, ROUTE_SPECTRA, ROUTE_LONG):
         return None, None, None
-    blocks = nfft // route.n1 // (route.cols or ROW_STRIP)
+    if route.kind == ROUTE_LONG:
+        blocks = nfft // _long_n1a(nfft) // route.cols
+    else:
+        blocks = nfft // route.n1 // (route.cols or ROW_STRIP)
     return (torch.empty(2 * rows, dtype=torch.int64, device=device),
             torch.empty(rows, dtype=torch.int32, device=device),
             torch.empty(2 * rows * blocks, dtype=torch.float32,
@@ -911,31 +901,35 @@ def _gcc_buffers(route: GccRoute, scenes: int, mics: int, couples: int,
                  nfft: int, device):
     """K1's and K2's buffers on ``route`` for ``scenes`` scenes a launch:
     the strips argument (column strip, K4a's pass-2 strip, row strip; all
-    0 off the spectra routes), pointers (spec0, spec1, cross0, cross1) and
-    the tensors.  One block a scene: none.  ``gcc_rows``: the packed mic
-    rows and the cross rows.  The passes (K2's alone): two copies of each
-    (ping-pong).  The spectra, on the split and (K1's) on the three-pass
+    0 off the spectra routes), pointers (spec0, spec1, cross0) and the
+    tensors.  One block a scene: none.  ``gcc_rows``: the packed mic rows
+    and the cross rows.  The spectra, on the split and on the three-pass
     split: K4a's packed rows, which the cross rows reuse once the spectra
     are written, and the spectra (scenes * mics, nfft/2 + 1) in spec1; the
     spectra block route the spectra alone."""
     packed = (scenes * mics + 1) // 2
     cross = scenes * couples
-    if route.kind in (ROUTE_SPECTRA, ROUTE_SPECTRA_BLOCK, ROUTE_LONG):
-        spec = torch.empty((scenes * mics, nfft // 2 + 1),
-                           dtype=torch.complex64, device=device)
-        if route.kind == ROUTE_SPECTRA_BLOCK:
-            return (0, 0, 0), (None, spec.data_ptr(), None, None), [spec]
-        buf = _scratch(max(packed, cross), nfft, device)
-        strips = (_spectra_strips(nfft, packed) if route.kind == ROUTE_SPECTRA
-                  else (route.cols, long_plan(nfft, packed).rows.strip,
-                        route.rows))
-        return (strips,
-                (buf.data_ptr(), spec.data_ptr(), buf.data_ptr(), None),
-                [buf, spec])
-    copies = _copies(route.n1)
-    spec0, spec1, bufs = _buffers(copies, packed, nfft, device)
-    cpl0, cpl1, cross_bufs = _buffers(copies, cross, nfft, device)
-    return (0, 0, 0), (spec0, spec1, cpl0, cpl1), bufs + cross_bufs
+    if route.kind == ROUTE_BLOCK:
+        return (0, 0, 0), (None, None, None), []
+    if route.kind == ROUTE_ROWS:
+        zm, zc = _scratch(packed, nfft, device), _scratch(cross, nfft, device)
+        return (0, 0, 0), (zm.data_ptr(), None, zc.data_ptr()), [zm, zc]
+    spec = torch.empty((scenes * mics, nfft // 2 + 1),
+                       dtype=torch.complex64, device=device)
+    if route.kind == ROUTE_SPECTRA_BLOCK:
+        return (0, 0, 0), (None, spec.data_ptr(), None), [spec]
+    buf = _scratch(max(packed, cross), nfft, device)
+    return (_route_strips(route, nfft, packed),
+            (buf.data_ptr(), spec.data_ptr(), buf.data_ptr()), [buf, spec])
+
+
+def _route_strips(route: GccRoute, nfft: int, packed: int):
+    """(column strip, K4a's pass-2 strip, row strip) of the spectra routes
+    at nfft for ``packed`` packed rows in K4a's passes: ``spectra_plan``'s
+    on the split, ``long_plan``'s on the three-pass split."""
+    if route.kind == ROUTE_LONG:
+        return route.cols, long_plan(nfft, packed).rows.strip, route.rows
+    return _spectra_strips(nfft, packed)
 
 
 def _spectra_strips(nfft: int, packed: int):
@@ -948,14 +942,6 @@ def _spectra_strips(nfft: int, packed: int):
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
-
-
-def _buffers(copies: int, rows: int, nfft: int, device):
-    """Pointers to the first and second of ``copies`` scratch buffers of
-    (rows, nfft) complex (None where there are fewer), and the tensors."""
-    bufs = [_scratch(rows, nfft, device) for _ in range(copies)]
-    ptrs = [b.data_ptr() for b in bufs] + [None, None]
-    return ptrs[0], ptrs[1], bufs
 
 
 def fft_real(x: torch.Tensor, nfft: int) -> torch.Tensor:
@@ -1116,19 +1102,18 @@ def _scene_bytes(nfft: int, mics: int, couples: int) -> int:
     half packed rows of nfft complex points: none up to
     ``FFT_REAL_ONE_BLOCK``; on the split (to ``FFT_SPLIT_MAX``) the mic
     rows' (mics) or the cross rows' (2 couples), whichever is more, and
-    the spectra of every mic row (mics); above, where K2, K3 and K5 run the
-    radix-2 passes, two copies each of the base rows' (1), the mic rows'
-    and the cross rows'.  K1's three-pass split there needs less (the
-    split's count), but takes the passes' count too: its chunks are
-    smaller than they need be, and the chunks of K2, K3 and K5, which K5
-    = K3 then K2 rests on, stay as they were.  A 4-mic scene: 1.34 GB at
-    2^25, 2.68 GB at 2^26, 11.8 GB at 2^27."""
+    the spectra of every mic row (mics); above, on the three-pass split,
+    K5's: its render's pass A' writes the finished signals' packed rows
+    (mics) beside the rows it reads, which then take the GCC's forward
+    passes and its cross rows (the more of mics and 2 couples), and the
+    spectra of every mic row (mics) (K1 and K2 hold the split's count, K3
+    2 mics + 1).  A 4-mic scene: 1.34 GB at 2^25, 2.68 GB at 2^26, 7.52 GB
+    at 2^27, 15.0 GB at 2^28, 30.1 GB at 2^29 and 60.1 GB at 2^30."""
     if nfft <= FFT_REAL_ONE_BLOCK:
         return 0
-    if nfft <= FFT_SPLIT_MAX:
-        halves = max(mics, 2 * couples) + mics
-    else:
-        halves = 2 * (1 + mics + 2 * couples)
+    halves = max(mics, 2 * couples) + mics
+    if nfft > FFT_SPLIT_MAX:
+        halves += mics
     return halves * nfft * 4
 
 
@@ -1170,8 +1155,8 @@ def gcc_all_pairs(signals: torch.Tensor, pairs_i: Sequence[int],
     scene (rows scene * M + mic, two per complex FFT, so an odd M packs
     across scenes), the whitened, band-masked cross-spectra of two pairs
     of one scene per packed Hermitian row, the packed inverse, 1/n and the
-    split into the two pairs.  By route (``gcc_all_route``: K2's
-    ``gcc_route`` up to 2^26):
+    split into the two pairs.  By route (``gcc_route``, K2's and K5's
+    rule):
 
     - one block a scene (nfft <= ``FFT_REAL_ONE_BLOCK``, 4,096, up to 10
       mics): one launch, the scene's packed mic rows and a spare row in
@@ -1224,7 +1209,7 @@ def gcc_all_pairs(signals: torch.Tensor, pairs_i: Sequence[int],
     scenes = int(np.prod(lead)) if lead else 1
     num_pairs = int(pi.shape[0])
     couples = (num_pairs + 1) // 2
-    route = gcc_all_route(nfft, mics)
+    route = gcc_route(nfft, mics)
     chunk = (scenes if route.n1 == 1
              else scene_chunk(scenes, mics, num_pairs, nfft))
     if length > nfft or mask.shape != (nfft // 2 + 1,):
@@ -1245,13 +1230,12 @@ def gcc_all_pairs(signals: torch.Tensor, pairs_i: Sequence[int],
     strips, ptrs, _bufs = _gcc_buffers(route, chunk, mics, couples, nfft, dev)
     tw = _twiddles(nfft, str(dev))
     for s0 in range(0, scenes, chunk):
-        # K1 takes no ping-pong copy (ptrs[3]): it never runs the passes.
         _launch("gcc_all_pairs", dev, lib.palt_gcc_all_pairs,
                 x[s0].data_ptr(), min(chunk, scenes - s0), mics, length,
                 nfft, route.n1, route.kind, *strips, _long_n1a(nfft),
                 pi_t.data_ptr(),
                 pj_t.data_ptr(), num_pairs, mask.data_ptr(), eps,
-                tw.data_ptr(), *ptrs[:3], o[s0].data_ptr())
+                tw.data_ptr(), *ptrs, o[s0].data_ptr())
     return out
 
 
@@ -1322,8 +1306,12 @@ def gcc_windowed(signals: torch.Tensor, pairs_i: Sequence[int],
     K1's: K4a's two passes, the pair-indexed row pass (which also clears
     the argmax keys and block counters) and that column pass, with
     ``spectra_plan``'s strips (8 columns from 2^21, 4 at 2^24 and 2^25, 2
-    at 2^26).  Above 2^26 the radix-2 passes, the last one fused with the
-    window and the statistics.  Bound by device memory.  A batch whose
+    at 2^26); above, to 2^30, six launches on the three-pass split through
+    the mic rows' spectra, as K1's: K4a's three passes, the pair-indexed
+    row pass, B' and pass A' ending in the window and the statistics
+    (``long_cols_window``, the partials of its 65,536 blocks a row at 2^27
+    summed in a fixed order by the row's last block).  Bound by device
+    memory.  A batch whose
     grids would exceed 65,535 rows, or whose scratch would pass
     ``SPLIT_SCRATCH_BYTES``, launches over scene chunks (``scene_chunk``),
     in one block too, so that K2 chunks as K5 does."""
@@ -1362,7 +1350,8 @@ def gcc_windowed(signals: torch.Tensor, pairs_i: Sequence[int],
     for s0 in range(0, scenes, chunk):
         _launch("gcc_windowed", dev, lib.palt_gcc_windowed,
                 x[s0].data_ptr(), min(chunk, scenes - s0), mics, length,
-                nfft, route.n1, route.kind, *strips, pi_t.data_ptr(),
+                nfft, route.n1, route.kind, *strips, _long_n1a(nfft),
+                pi_t.data_ptr(),
                 pj_t.data_ptr(), num_pairs, mask.data_ptr(), eps, wq,
                 tw.data_ptr(), *ptrs, _ptr(keys), _ptr(count), _ptr(part),
                 win_s[s0].data_ptr(), stats_s[s0].data_ptr())
@@ -1583,34 +1572,36 @@ def _render_shapes(name, base, tau, gains, nfft, out_samples, fade):
 def _render_buffers(route: GccRoute, scenes: int, mics: int, nfft: int,
                     device):
     """K3's buffers on its render ``route`` for ``scenes`` scenes a
-    launch: the strips argument (column strip, K4a's pass-2
-    strip, row strip; all 0 off the spectra route), pointers (zb0, zb1,
-    z0, z1), the spectra (or None) and the tensors.  One block: none.
-    ``render_rows``: the packed base rows and the packed mic rows.  The
-    passes: two copies of each (ping-pong).  The base rows' spectra: the
-    packed mic rows, whose buffer takes K4a's packed base rows first (they
-    are dead once their spectra are written), and the spectra (scenes,
-    nfft/2 + 1)."""
+    launch: the strips argument (column strip, K4a's pass-2 strip, row
+    strip; all 0 off the spectra routes), pointers (zb, z0, z1), the
+    spectra (or None) and the tensors.  One block: none.  ``render_rows``:
+    the packed base rows and the packed mic rows.  The base rows' spectra
+    on the split: the packed mic rows, whose buffer takes K4a's packed
+    base rows first (they are dead once their spectra are written), and
+    the spectra (scenes, nfft/2 + 1); on the three-pass split also a
+    second buffer of packed mic rows, which pass A' writes (it cannot
+    write the rows it reads)."""
     packed_b, packed = (scenes + 1) // 2, (scenes * mics + 1) // 2
-    if route.kind != ROUTE_SPECTRA:
-        copies = _copies(route.n1)
-        zb0, zb1, bufs = _buffers(copies, packed_b, nfft, device)
-        z0, z1, mic_bufs = _buffers(copies, packed, nfft, device)
-        return (0, 0, 0), (zb0, zb1, z0, z1), None, bufs + mic_bufs
+    if route.kind == ROUTE_BLOCK:
+        return (0, 0, 0), (None, None, None), None, []
     z = _scratch(packed, nfft, device)
+    if route.kind == ROUTE_ROWS:
+        zb = _scratch(packed_b, nfft, device)
+        return (0, 0, 0), (zb.data_ptr(), z.data_ptr(), None), None, [zb, z]
     spec = torch.empty((scenes, nfft // 2 + 1), dtype=torch.complex64,
                        device=device)
+    z1 = _scratch(packed, nfft, device) if route.kind == ROUTE_LONG else None
     return (_render_strips(route, scenes, nfft),
-            (z.data_ptr(), None, z.data_ptr(), None), spec, [z])
+            (z.data_ptr(), z.data_ptr(), _ptr(z1)), spec, [z, z1])
 
 
 def _render_strips(route: GccRoute, scenes: int, nfft: int):
     """(column strip, K4a's pass-2 strip, row strip) of the render's
-    spectra route for ``scenes`` scenes a launch (two a packed base row);
+    spectra routes for ``scenes`` scenes a launch (two a packed base row);
     (0, 0, 0) on the other routes."""
-    if route.kind != ROUTE_SPECTRA:
+    if route.kind not in (ROUTE_SPECTRA, ROUTE_LONG):
         return 0, 0, 0
-    return _spectra_strips(nfft, (scenes + 1) // 2)
+    return _route_strips(route, nfft, (scenes + 1) // 2)
 
 
 def _finish_scratch(nfft: int, scenes: int, chunk: int, mics: int, device):
@@ -1659,7 +1650,10 @@ def delay_sum(base: torch.Tensor, tau: torch.Tensor, gains: torch.Tensor,
     spectra, a row pass mixes each packed mic row's strip from them (one
     strip at any mic count) and runs its inverse row DFTs, and the inverse
     column DFTs (``spectra_plan``'s strips: 8 wide at 2,048, 4 at 4,096,
-    2 at 8,192); above 2^26 the radix-2 passes.
+    2 at 8,192); above 2^26, to 2^30, six on the three-pass split: K4a's
+    three passes into the bases' half spectra, the mix row pass
+    (``render_spec_rows_long``, the twiddle left to B'), B' and A'
+    (``long_cols_render``) into a second buffer of packed mic rows.
     Then the finish: a block a mic row (``render_finalize``), or, where a
     call's rows from 2^20 are too few to fill the card, spread over
     ``finish_groups`` blocks a packed mic row in up to four launches
@@ -1686,7 +1680,7 @@ def delay_sum(base: torch.Tensor, tau: torch.Tensor, gains: torch.Tensor,
                       device=dev)
     chunk = scene_chunk(scenes, mics, 0, nfft)
     route = render_route(nfft)
-    strips, (zb0, zb1, zm0, zm1), spec, _bufs = _render_buffers(
+    strips, (zb, zm0, zm1), spec, _bufs = _render_buffers(
         route, chunk, mics, nfft, dev)
     groups, part = _finish_scratch(nfft, scenes, chunk, mics, dev)
     tw = _twiddles(nfft, str(dev))
@@ -1697,8 +1691,8 @@ def delay_sum(base: torch.Tensor, tau: torch.Tensor, gains: torch.Tensor,
                 min(chunk, scenes - s0), length, tau_s[s0].data_ptr(),
                 gains_s[s0].data_ptr(), mics, paths, nfft, route.n1,
                 out_samples, fade.data_ptr(), int(finalize), _at(snr_s, s0),
-                _at(seeds_s, s0), tw.data_ptr(), zb0, zb1, zm0, zm1,
-                route.kind, *strips, _ptr(spec), g, _ptr(part),
+                _at(seeds_s, s0), tw.data_ptr(), zb, zm0, zm1, route.kind,
+                *strips, _long_n1a(nfft), _ptr(spec), g, _ptr(part),
                 out_s[s0].data_ptr())
     return out
 
@@ -1742,11 +1736,13 @@ def scene_windowed(base: torch.Tensor, tau: torch.Tensor,
     between, seven in all; where ``gcc_rows`` does not fit (2^20 and up
     at any mic count) the GCC's four launches through the mic rows'
     spectra; from 2^20 to 2^26 the render's four through the base rows'
-    spectra and the finish's one to four (``finish_groups``); the
-    intermediates in device memory and L2.  The render
-    writes each finished signal as the packed forward input of the GCC
-    stage (zero-padded to nfft), which the GCC's block or column pass
-    reads (on the split in place).  The same stage code as ``delay_sum``
+    spectra and the finish's one to four (``finish_groups``); above, to
+    2^30, the render's six and the GCC's six on the three-pass split with
+    the finish between; the intermediates in device memory and L2.  The
+    render writes each finished signal as the packed forward input of the
+    GCC stage (zero-padded to nfft), which the GCC's block or column pass
+    reads (on the split in place, on the three-pass split into the other
+    buffer of packed mic rows).  The same stage code as ``delay_sum``
     then ``gcc_windowed``, so the two paths agree to the bit on the same
     inputs; a batch whose grids would exceed 65,535 rows launches over the
     scene chunks those two take (``scene_chunk``).  Bound by device
@@ -1784,33 +1780,27 @@ def scene_windowed(base: torch.Tensor, tau: torch.Tensor,
     packed, cross = (chunk * mics + 1) // 2, chunk * couples
     # The packed base rows as K3 takes them (none in one block; in the
     # packed mic rows' buffer through the base rows' spectra); the packed
-    # mic rows, which hold the finished signals between the stages, once
-    # where the render does not run the passes (the GCC runs them only
-    # above 2^26, where the render does too), the first copy large enough
-    # for the cross rows on the GCC's spectra route (they go there once
-    # the spectra are written); the cross rows as K2 takes them on the
-    # other routes; one spectra buffer for the GCC's spectra routes and
-    # the render's, the GCC's rows being the more.
-    rspectra = rroute.kind == ROUTE_SPECTRA
-    zb0, zb1, _zb = _buffers(0 if rspectra else _copies(rroute.n1),
-                             (chunk + 1) // 2, nfft, dev)
-    two = rroute.kind == ROUTE_PASSES
-    spectra = route.kind == ROUTE_SPECTRA
-    _zm = [_scratch(max(packed, cross) if spectra else packed, nfft, dev)]
-    if two:
-        _zm.append(_scratch(packed, nfft, dev))
-    zm0, zm1 = _zm[0].data_ptr(), (_zm[1].data_ptr() if two else None)
-    if rspectra:
-        zb0 = zm0
-    strips, spec = (0, 0, 0), None
-    if spectra:
-        cpl0, cpl1 = zm0, None
-        strips = _spectra_strips(nfft, packed)
-    else:
-        cpl0, cpl1, _cpl = _buffers(
-            0 if route.kind == ROUTE_SPECTRA_BLOCK else _copies(route.n1),
-            cross, nfft, dev)
-    gcc_spectra = route.kind in (ROUTE_SPECTRA, ROUTE_SPECTRA_BLOCK)
+    # mic rows, which hold the finished signals between the stages, large
+    # enough for the cross rows where the GCC goes through the spectra
+    # (they go there once the spectra are written); on the three-pass
+    # split a second buffer of packed mic rows, where the render's pass A'
+    # leaves the finished signals; the cross rows as K2 takes them on the
+    # rows route; one spectra buffer for the GCC's spectra routes and the
+    # render's, the GCC's rows being the more.
+    long = route.kind == ROUTE_LONG    # the render's route is long too
+    spectra = route.kind in (ROUTE_SPECTRA, ROUTE_LONG)
+    rspectra = rroute.kind in (ROUTE_SPECTRA, ROUTE_LONG)
+    _zm = _scratch(max(packed, cross) if spectra else packed, nfft, dev)
+    _zm1 = _scratch(packed, nfft, dev) if long else None
+    zm0, zm1 = _zm.data_ptr(), _ptr(_zm1)
+    _zb = (_scratch((chunk + 1) // 2, nfft, dev)
+           if rroute.kind == ROUTE_ROWS else None)
+    zb = zm0 if rspectra else _ptr(_zb)
+    _cpl = _scratch(cross, nfft, dev) if route.kind == ROUTE_ROWS else None
+    cpl0 = zm0 if spectra else _ptr(_cpl)
+    strips = _route_strips(route, nfft, packed) if spectra else (0, 0, 0)
+    gcc_spectra = spectra or route.kind == ROUTE_SPECTRA_BLOCK
+    spec = None
     if gcc_spectra or rspectra:
         spec = torch.empty((chunk * mics if gcc_spectra else chunk,
                             nfft // 2 + 1), dtype=torch.complex64,
@@ -1825,11 +1815,12 @@ def scene_windowed(base: torch.Tensor, tau: torch.Tensor,
         _launch("scene_windowed", dev, lib.palt_scene_windowed,
                 base_s[s0].data_ptr(), min(chunk, scenes - s0), length,
                 tau_s[s0].data_ptr(), gains_s[s0].data_ptr(), mics, paths,
-                nfft, rroute.n1, route.n1, route.kind, *strips, out_samples,
-                fade.data_ptr(), _at(snr_s, s0), _at(seeds_s, s0),
-                pi_t.data_ptr(), pj_t.data_ptr(), num_pairs, mask.data_ptr(),
-                eps, wq, tw.data_ptr(), zb0, zb1, zm0, zm1, cpl0, cpl1,
-                _ptr(spec), _ptr(keys), _ptr(count), _ptr(part), rroute.kind,
+                nfft, rroute.n1, route.n1, route.kind, *strips,
+                _long_n1a(nfft), out_samples, fade.data_ptr(),
+                _at(snr_s, s0), _at(seeds_s, s0), pi_t.data_ptr(),
+                pj_t.data_ptr(), num_pairs, mask.data_ptr(), eps, wq,
+                tw.data_ptr(), zb, zm0, zm1, cpl0, _ptr(spec), _ptr(keys),
+                _ptr(count), _ptr(part), rroute.kind,
                 *rstrips, g, _ptr(fpart), win_s[s0].data_ptr(),
                 stats_s[s0].data_ptr())
     return win, stats

@@ -11,8 +11,8 @@ The cases above 2^20 run from ``test_torch_cuda_long.py``, a file of
 their own: in one process after them, late profiler traces here lost
 each call's first kernel.
 
-Tolerances are float32's: transforms of log2(nfft) radix-2 passes in the
-kernel and in cuFFT, compared on values bounded by 1 (correlations, finalized
+Tolerances are float32's: transforms of log2(nfft) stages in the kernel
+and in cuFFT, compared on values bounded by 1 (correlations, finalized
 renders) or relative to the spectrum's peak (``fft_real``).  Noisy renders
 add the Philox normals (same integers in kernel and twin, float32
 log/cos/sqrt within a few units in the last place) times sigma <= 0.1.
@@ -224,8 +224,8 @@ def test_bootstrap_peaks_kernel_matches_plain(cuda, rows, length, nfft):
     256 at 65,536 and 131,072 with 2 and 1000 rows, n2 = 512 at 2^18 and
     1024 x 1024 at 2^20, whose row pass runs 512 and 1024 threads; at 2^21
     strips of 8 columns, at 2^22 8 columns and 8 rows, at 2^23 8 columns
-    and 4 rows of 4,096, at 2^24 4 and 4) and the radix-2 passes above
-    2^24."""
+    and 4 rows of 4,096, at 2^24 4 and 4) and, from
+    ``test_torch_cuda_long.py``, 2^25 to 2^27."""
     g = _gen(cuda)
     s1 = cf.fft_real_plain(torch.randn((1, length), generator=g,
                                        device=cuda), nfft)[0].contiguous()
@@ -509,8 +509,8 @@ def test_gcc_all_pairs_scene_axis_matches_plain(cuda, b, m, length, nfft):
 @pytest.mark.cuda
 def test_gcc_all_pairs_launches_over_scene_chunks(cuda, monkeypatch):
     """A batch beyond the grid limit is launched in scene chunks (the
-    limit lowered here so a small batch crosses it) on the split and the
-    passes, whose grids count packed rows along y; one block a scene
+    limit lowered here so a small batch crosses it) on the split, whose
+    grids count packed rows along y; one block a scene
     (nfft <= 4,096) has no such limit and launches once."""
     monkeypatch.setattr(cf, "_MAX_GRID_Y", 7)
     sig = torch.randn((5, 3, 200), generator=_gen(cuda), device=cuda)
@@ -535,7 +535,7 @@ def test_gcc_all_pairs_launches_over_scene_chunks(cuda, monkeypatch):
     (1, 3, 600000, 1 << 20, 1024)])
 def test_gcc_all_pairs_schedules_match_plain(cuda, b, m, length, nfft,
                                              schedule):
-    """K1 on each of its schedules (``gcc_all_route``'s n1): one block a
+    """K1 on each of its schedules (``gcc_route``'s n1): one block a
     scene (the reverberant sweep's 512 scenes, one scene of 8 mics whose
     couples spread over blocks, the odd edge of 5 scenes x 3 mics, 10
     mics), the three launches of the split (the api's one scene, whose row pass
@@ -544,7 +544,7 @@ def test_gcc_all_pairs_schedules_match_plain(cuda, b, m, length, nfft,
     split (11 mics at 65,536, past ``gcc_rows``; 3 mics at 2^20; a 23.7 s
     recording's 4 mics at 2^21, 2 scenes of 3 mics, 4 mics at 2^22) and
     the two through them in one block (12 mics at 4,096)."""
-    assert cf.gcc_all_route(nfft, m).n1 == schedule
+    assert cf.gcc_route(nfft, m).n1 == schedule
     g = _gen(cuda, 5)
     sig = torch.randn((m, length) if b is None else (b, m, length),
                       generator=g, device=cuda)
@@ -674,8 +674,8 @@ def test_gcc_spectra_routes_device_kernels_per_call(cuda, tmp_path):
     split at 2^20 (K4a's two passes, ``corr_rows``, ``corr_cols``) and two
     in one block at 4,096 with 12 mics (``fft_real_block``, ``corr_block``
     with ``CorrOut``); K2 four at 2^20 (``window_cols`` last) and two at
-    4,096 (``corr_block`` with ``WindowOut``); no radix-2 pass anywhere
-    (2^21: ``test_torch_cuda_long.py``)."""
+    4,096 (``corr_block`` with ``WindowOut``); no kernel outside the
+    route's (2^21: ``test_torch_cuda_long.py``)."""
     g = _gen(cuda, 21)
     for shape, nfft, wq in (((1, 4, 800000), 1 << 20, 21),
                             ((4, 12, 3000), 4096, 2)):
@@ -693,14 +693,14 @@ def test_gcc_spectra_routes_device_kernels_per_call(cuda, tmp_path):
             assert len(k1) == len(k2) == 4, (k1, k2)
             assert all(w in a and w in b for w, a, b in zip(want, k1, k2))
             assert "corr_cols" in k1[3] and "window_cols" in k2[3], (k1, k2)
+            route = want + ("corr_cols", "window_cols")
         else:
             assert len(k1) == len(k2) == 2, (k1, k2)
             assert "fft_real_block" in k1[0] and "fft_real_block" in k2[0]
             assert "CorrOut" in k1[1] and "WindowOut" in k2[1], (k1, k2)
+            route = ("fft_real_block", "corr_block")
         for name in k1 + k2:
-            assert not any(p in name for p in (
-                "stockham_pass", "pack_rows", "gcc_cross",
-                "last_pass_window", "split_pairs")), name
+            assert any(r in name for r in route), name
 
 
 # K3 and K5 where the render goes through the base rows' spectra
@@ -764,7 +764,8 @@ def test_render_spectra_route_device_kernels_per_call(cuda, tmp_path):
     for one scene of 4 mics spread over the card, ``finish_spread`` 4
     times with the finalize and the noise, 3 with the finalize, 2 with the
     noise, once with neither; for 64 scenes one ``render_finalize``.  K5
-    runs K3's kernels, then its GCC's four.  No radix-2 pass anywhere."""
+    runs K3's kernels, then its GCC's four.  No kernel outside the
+    routes'."""
     render = ["fft_real_cols", "fft_real_rows", "render_spec_rows",
               "render_cols"]
     cases = [(1, True, True, ["finish_spread"] * 4),
@@ -794,9 +795,7 @@ def test_render_spectra_route_device_kernels_per_call(cuda, tmp_path):
     assert len(names) == len(want), names
     assert all(w in n for w, n in zip(want, names)), names
     for name in names:
-        assert not any(p in name for p in (
-            "stockham_pass", "pack_rows", "render_mix", "gcc_cross",
-            "last_pass_window")), name
+        assert any(r in name for r in render + want), name
 
 
 def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
@@ -1061,8 +1060,7 @@ def test_scene_kernels_in_one_block_match_plain(cuda, scenes, m, paths,
     ``SCENE_TOL`` (2e-5, 1e-6, 1e-5) with equal argmaxes, and K5 equal to
     K3 then K2 to the bit (the GCC through the spectra where a scene does
     not fit)."""
-    n1r, n1g = cf.scene_stages(nfft, m)
-    assert n1r == 1 and n1g == 1
+    assert cf.render_route(nfft).n1 == cf.gcc_route(nfft, m).n1 == 1
     assert cf.gcc_route(nfft, m).kind == (
         cf.ROUTE_BLOCK if m <= (24 if nfft == 2048 else 10)
         else cf.ROUTE_SPECTRA_BLOCK)

@@ -1,8 +1,8 @@
 """The CUDA kernels against their plain PyTorch twins on the card above
 2^20 points: the split of every transforming kernel to 2^26, above it
-(at 2^27) the three-pass split of K4a, K4b, K6, K9 and K1, K9's, K1's,
-K2's, K3's and K5's shapes from 2^21 to 2^26 through the spectra, and
-the device kernels a call runs there.
+(at 2^27) the three-pass split of all eight, K9's, K1's, K2's, K3's and
+K5's shapes from 2^21 to 2^26 through the spectra, and the device
+kernels a call runs there.
 
 A file of its own, run in its own process: in one process after these
 cases, late profiler traces in ``test_torch_cuda_kernels.py`` lost each
@@ -264,8 +264,8 @@ def test_device_kernels_per_call_above_2_20(cuda, tmp_path):
     (``window_cols`` last for K2); K3 eight with the finalize and the
     noise at 2^22 to 2^26 (K4a's two passes into the base rows' spectra,
     ``render_spec_rows``, ``render_cols``, four steps of
-    ``finish_spread``) and K5 twelve (K3's, then K2's four); no radix-2
-    pass anywhere."""
+    ``finish_spread``) and K5 twelve (K3's, then K2's four), each kernel
+    at its place in the call."""
     seeds = torch.randint(-2 ** 31, 2 ** 31, (3, 2), generator=_gen(cuda),
                           dtype=torch.int32, device=cuda)
     for rows, length, nfft in ((2, 1_046_019, 1 << 21),
@@ -313,8 +313,6 @@ def test_device_kernels_per_call_above_2_20(cuda, tmp_path):
         assert len(names) == 2, names
         assert "corr_rows" in names[0] and "corr_cols" in names[1], names
     g = _gen(cuda, 21)
-    passes = ("stockham_pass", "pack_rows", "gcc_cross", "last_pass_window",
-              "split_pairs", "render_mix", "render_finalize")
     for length, nfft in ((1500000, 1 << 21), (6000000, 1 << 23),
                          (12000000, 1 << 24), (24000000, 1 << 25),
                          (48000000, 1 << 26)):
@@ -330,8 +328,6 @@ def test_device_kernels_per_call_above_2_20(cuda, tmp_path):
         assert len(k1) == len(k2) == 4, (nfft, k1, k2)
         assert all(w in a and w in b for w, a, b in zip(want, k1, k2))
         assert "corr_cols" in k1[3] and "window_cols" in k2[3], (k1, k2)
-        for name in k1 + k2:
-            assert not any(p in name for p in passes), name
         del sig
     render = ["fft_real_cols", "fft_real_rows", "render_spec_rows",
               "render_cols"] + ["finish_spread"] * 4
@@ -355,8 +351,6 @@ def test_device_kernels_per_call_above_2_20(cuda, tmp_path):
         assert all(w in n for w, n in zip(render, k3)), k3
         assert len(k5) == len(render + gcc), (nfft, k5)
         assert all(w in n for w, n in zip(render + gcc, k5)), k5
-        for name in k3 + k5:
-            assert not any(p in name for p in passes), name
         del base
 
 
@@ -368,9 +362,9 @@ def test_device_kernels_per_call_above_2_26(cuda, tmp_path):
     A' with the maxima, ``long_cols_max``; K6's first with its
     ``NoiseLoad``), K9 three (``corr_rows_long``, B', A' with the
     correlations, ``long_cols_corr``) and K1 six (K4a's three into the
-    mic rows' spectra, then K9's three with the pair-indexed loader), none
-    of the radix-2 passes; each against its twin and K6 equal to K4b on
-    the same draws."""
+    mic rows' spectra, then K9's three with the pair-indexed loader), each
+    kernel at its place in the call; each against its twin and K6 equal
+    to K4b on the same draws."""
     nfft, length = 1 << 27, 67_000_000
     g = _gen(cuda, 27)
     x = torch.randn((3, length), generator=g, device=cuda)
@@ -397,9 +391,6 @@ def test_device_kernels_per_call_above_2_26(cuda, tmp_path):
     assert len(names) == 5 and all(w in n for w, n in zip(boot, names)), \
         names
     assert "NoiseLoad" in names[0], names
-    passes = ("stockham_pass", "pack_rows", "gcc_cross", "split_pairs",
-              "corr_cross")
-    assert not any(p in n for p in passes for n in names)
     del x
     draws = noise_ops.uniform(seeds, length)
     assert torch.equal(cf.noise_bootstrap_peaks(s1, seeds, length, nfft),
@@ -413,7 +404,6 @@ def test_device_kernels_per_call_above_2_26(cuda, tmp_path):
                             tmp_path / "k9_27.json")
     assert len(names) == 3 and all(w in n for w, n in zip(corr, names)), \
         names
-    assert not any(p in n for p in passes for n in names)
     del a, b
     sig = torch.randn((4, length), generator=g, device=cuda)
     pi, pj = _pairs(4)
@@ -424,4 +414,110 @@ def test_device_kernels_per_call_above_2_26(cuda, tmp_path):
     assert len(names) == 6 and all(w in n for w, n in zip(k1, names)), \
         names
     assert "PairIndexLoad" in names[3], names
-    assert not any(p in n for p in passes for n in names)
+
+
+# K3, K2 and K5 on the three-pass split: (scenes, mics, paths, padded
+# length, samples, nfft, wq) of the fast path's one scene of 4 mics at
+# 2^27 (chip_smoke.py's FAST_SAMPLES: 2,177 s at 44.1 kHz) and 2 scenes of
+# 3 mics and 3 paths at 2^27 (mic rows packed across scenes, an odd pair
+# count).
+THREE_PASS_SCENES = [(1, 4, 1, 99200000, 96000000, 1 << 27, 21),
+                     (2, 3, 3, 6200000, 6000000, 1 << 27, 21)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenes,m,paths,total,out,nfft,wq",
+                         THREE_PASS_SCENES)
+def test_three_pass_scene_kernels_match_plain(cuda, scenes, m, paths, total,
+                                              out, nfft, wq):
+    """K3 on the three-pass split (K4a's three passes into the base rows'
+    spectra, ``render_spec_rows_long``, B', ``long_cols_render`` and the
+    finish spread over the card) with the finalize and the noise within
+    2e-5 of its twin, raw within 2e-5 of the peak; K2 on its signals (the
+    three-pass split through the mic rows' spectra, ``long_cols_window``)
+    within 1e-6 plus its float32 twin's distance from its float64 run,
+    pair by pair, with equal argmaxes; K5 within 1e-5 of its twin and
+    equal to K3 then K2 to the bit; one launch a call each."""
+    assert cf.render_route(nfft).kind == cf.gcc_route(nfft, m).kind == (
+        cf.ROUTE_LONG)
+    base, tau, gains, snr, seeds, fade = _scene_inputs(cuda, scenes, m,
+                                                       paths, total, out, 27)
+    pi, pj = _pairs(m)
+    mask = cf.band_mask(nfft, (300.0, 3400.0), 44100.0, device=cuda)
+    cf.reset_launches()
+    raw = cf.delay_sum(base, tau, gains, nfft, out, fade, False)
+    want = cf.delay_sum_plain(base, tau, gains, nfft, out, fade, False)
+    torch.cuda.synchronize()
+    assert float((raw - want).abs().max()) < 2e-5 * float(want.abs().max())
+    del raw, want
+    sigs = cf.delay_sum(base, tau, gains, nfft, out, fade, True, snr, seeds)
+    want = cf.delay_sum_plain(base, tau, gains, nfft, out, fade, True, snr,
+                              seeds)
+    torch.cuda.synchronize()
+    assert sigs.shape == (scenes, m, out)
+    assert float((sigs - want).abs().max()) < 2e-5
+    del want
+    win, stats = cf.gcc_windowed(sigs, pi, pj, nfft, wq, mask)
+    w2, s2 = cf.gcc_windowed_plain(sigs, pi, pj, nfft, wq, mask)
+    gap = max(float((w2[..., p, :].double() - cf.gcc_windowed_plain(
+        sigs.double(), pi[p:p + 1], pj[p:p + 1], nfft, wq,
+        mask.double())[0][..., 0, :]).abs().max()) for p in range(len(pi)))
+    torch.cuda.synchronize()
+    assert float((win - w2).abs().max()) < 1e-6 + gap
+    assert torch.equal(stats[..., 2], s2[..., 2])
+    assert float((stats[..., :2] - s2[..., :2]).abs().max()) < 1e-6 + gap
+    del w2, s2
+    fused = cf.scene_windowed(base, tau, gains, pi, pj, nfft, out, wq, fade,
+                              mask, snr, seeds)
+    torch.cuda.synchronize()
+    assert (cf.LAUNCHES["delay_sum"], cf.LAUNCHES["gcc_windowed"],
+            cf.LAUNCHES["scene_windowed"]) == (2, 1, 1)
+    assert torch.equal(fused[0], win) and torch.equal(fused[1], stats)
+    del sigs
+    w5, _ = cf.scene_windowed_plain(base, tau, gains, pi, pj, nfft, out, wq,
+                                    fade, mask, snr, seeds)
+    torch.cuda.synchronize()
+    assert float((fused[0] - w5).abs().max()) < 1e-5
+
+
+@pytest.mark.cuda
+def test_three_pass_scene_device_kernels_per_call(cuda, tmp_path):
+    """The design at 2^27 (one scene of 4 mics): K3 runs K4a's three
+    passes into the base rows' spectra, ``render_spec_rows_long``, B' and
+    ``long_cols_render``, then four steps of ``finish_spread``; K2 K4a's
+    three into the mic rows' spectra, ``corr_rows_long`` with the
+    pair-indexed loader, B' and ``long_cols_window``; K5 K3's ten, then
+    K2's six over the finished signals (``PackedLoad``): each kernel at
+    its place in the call, and none outside the route's."""
+    nfft, total, out = 1 << 27, 99200000, 96000000
+    base, tau, gains, snr, seeds, fade = _scene_inputs(cuda, 1, 4, 1, total,
+                                                       out, 28)
+    pi, pj = _pairs(4)
+    mask = cf.band_mask(nfft, (300.0, 3400.0), 44100.0, device=cuda)
+    render = ["long_cols_a", "long_cols_b", "fft_real_rows",
+              "render_spec_rows_long", "long_cols_b", "long_cols_render"]
+    render += ["finish_spread"] * 4
+    gcc = ["long_cols_a", "long_cols_b", "fft_real_rows", "corr_rows_long",
+           "long_cols_b", "long_cols_window"]
+    k3 = _device_kernels(
+        lambda: cf.delay_sum(base, tau, gains, nfft, out, fade, True, snr,
+                             seeds), tmp_path / "k3_27.json")
+    assert len(k3) == len(render), k3
+    assert all(w in n for w, n in zip(render, k3)), k3
+    sigs = cf.delay_sum(base, tau, gains, nfft, out, fade, True, snr, seeds)
+    k2 = _device_kernels(
+        lambda: cf.gcc_windowed(sigs, pi, pj, nfft, 21, mask),
+        tmp_path / "k2_27.json")
+    assert len(k2) == len(gcc), k2
+    assert all(w in n for w, n in zip(gcc, k2)), k2
+    assert "PairIndexLoad" in k2[3], k2
+    del sigs
+    k5 = _device_kernels(
+        lambda: cf.scene_windowed(base, tau, gains, pi, pj, nfft, out, 21,
+                                  fade, mask, snr, seeds),
+        tmp_path / "k5_27.json")
+    assert len(k5) == len(render + gcc), k5
+    assert all(w in n for w, n in zip(render + gcc, k5)), k5
+    assert "PackedLoad" in k5[len(render)], k5
+    for name in k3 + k2 + k5:
+        assert any(w in name for w in render + gcc), name

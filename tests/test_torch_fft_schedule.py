@@ -55,8 +55,8 @@ indices so that a wrong map shows before the card sees it:
   ``delay_sum_plain``, ``window_block`` (``gcc_block``'s body with the
   lag window and the statistics by the kernel's block reductions, ties to
   the smallest index) against ``gcc_windowed_plain``, K5 as the one over
-  the other's packed rows, and the rule that picks the schedule of all
-  three (``scene_stages``).
+  the other's packed rows, and the rules that pick the schedule of all
+  three (``render_route``, ``gcc_route``).
 """
 
 import numpy as np
@@ -1293,41 +1293,44 @@ def test_window_stats_keep_the_smallest_tied_index(n):
     (1 << 19, 4, (1024, 1024)), (1 << 20, 2, (1024, 1024)),
     (1 << 22, 4, (2048, 2048)), (1 << 23, 4, (2048, 2048)),
     (1 << 24, 4, (4096, 4096)), (1 << 25, 4, (4096, 4096)),
-    (1 << 26, 4, (8192, 8192)), (1 << 27, 4, (0, 0))])
+    (1 << 26, 4, (8192, 8192)), (1 << 27, 4, (16384, 16384)),
+    (1 << 28, 3, (32768, 32768))])
 def test_scene_stages_rule(n, mics, want):
-    """One rule for K3, K2 and K5 (``scene_stages``): up to 4,096 one block
-    for the render (its twiddles, base row and work row), and for the
-    GCC one block a scene where a scene's packed mic rows and a spare row
-    fit, else a packed cross row through the mic rows' spectra
-    (``gcc_route``); the split from 8,192 to 2^26, the render's with
-    ``render_rows`` where its row pass's two strips fit one block's shared
-    memory (to 2^19), else through the base rows' spectra, whose row pass
-    holds one strip of ``split_strips`` (``render_route``), the GCC's with
-    ``gcc_rows`` where its (mics + 1) // 2 + 1 strips fit, else through
-    the mic rows' spectra; the radix-2 passes above 2^26."""
-    got = cf.scene_stages(n, mics)
-    assert got == want
+    """One rule for K3, K2 and K5, read from the two routes (the n1 of
+    ``render_route`` and of ``gcc_route``): up to 4,096 one block for the
+    render (its twiddles, base row and work row), and for the GCC one
+    block a scene where a scene's packed mic rows and a spare row fit,
+    else a packed cross row through the mic rows' spectra; the split from
+    8,192 to 2^26, the render's with ``render_rows`` where its row pass's
+    two strips fit one block's shared memory (to 2^19), else through the
+    base rows' spectra, whose row pass holds one strip of
+    ``split_strips``, the GCC's with ``gcc_rows`` where its (mics + 1) //
+    2 + 1 strips fit, else through the mic rows' spectra; above 2^26 both
+    through the spectra on the three-pass split, one route."""
     route = cf.gcc_route(n, mics)
-    assert got[1] == route.n1
     render = cf.render_route(n)
-    assert got[0] == render.n1
+    got = render.n1, route.n1
+    assert got == want
     if n <= cf.FFT_REAL_ONE_BLOCK:
         assert got[0] == 1 and 8 * (n // 2 + 2 * n) <= cf.SMEM_OPTIN
         assert render.kind == cf.ROUTE_BLOCK
         smem = 8 * (n // 2 + ((mics + 1) // 2 + 1) * n)
         assert (smem <= cf.SMEM_OPTIN) == (route.kind == cf.ROUTE_BLOCK)
         return
-    if got[0]:
-        n1, n2 = cf.fft_real_split(n)
-        assert got[0] == n1
-        two = cf._row_pass_smem(n1, n2, 2) <= cf.SMEM_OPTIN
-        assert render.kind == (cf.ROUTE_ROWS if two else cf.ROUTE_SPECTRA)
-        if not two:
-            assert (render.cols, render.rows) == cf.split_strips(n1, n2)
-            assert cf._row_pass_smem(n1, n2, 1, render.rows,
-                                     cf.split_hi_points(n2)) <= cf.SMEM_OPTIN
-    else:
-        assert render.kind == cf.ROUTE_PASSES and n > cf.FFT_SPLIT_MAX
+    n1, n2 = cf.fft_real_split(n)
+    assert got[0] == n1
+    if n > cf.FFT_SPLIT_MAX:
+        assert render == route and render.kind == cf.ROUTE_LONG
+        plan = cf.long_plan(n)
+        assert (render.cols, render.rows) == (plan.cols_a.strip,
+                                              plan.corr_rows.strip)
+        return
+    two = cf._row_pass_smem(n1, n2, 2) <= cf.SMEM_OPTIN
+    assert render.kind == (cf.ROUTE_ROWS if two else cf.ROUTE_SPECTRA)
+    if not two:
+        assert (render.cols, render.rows) == cf.split_strips(n1, n2)
+        assert cf._row_pass_smem(n1, n2, 1, render.rows,
+                                 cf.split_hi_points(n2)) <= cf.SMEM_OPTIN
     if route.kind == cf.ROUTE_ROWS:
         assert cf._row_pass_smem(got[1], n // got[1],
                                  (mics + 1) // 2 + 1) <= cf.SMEM_OPTIN
@@ -1919,17 +1922,20 @@ def test_corr_block_matches_whitened_corr(n):
     (1 << 19, 4, 1024), (1 << 20, 2, 1024), (1 << 21, 4, 2048),
     (1 << 21, 64, 2048), (1 << 22, 4, 2048), (1 << 23, 4, 2048),
     (1 << 24, 4, 4096), (1 << 24, 128, 4096), (1 << 25, 4, 4096),
-    (1 << 25, 128, 4096), (1 << 26, 4, 8192), (1 << 27, 4, 0)])
+    (1 << 25, 128, 4096), (1 << 26, 4, 8192), (1 << 27, 4, 16384),
+    (1 << 30, 7, 131072)])
 def test_gcc_schedule_rule(n, mics, want):
-    """K1's schedule (``gcc_route``'s n1) is K2's GCC stage's
-    (``scene_stages``), one rule: one block up to 4,096 (a scene where the
-    twiddles, a scene's widest span of packed rows and a spare row fit one
-    block's shared memory, else a packed cross row through the spectra);
-    the split from 8,192 to 2^26 (``gcc_rows`` or the spectra, which
-    hold one strip at any mic count); the passes above."""
+    """K1's schedule (``gcc_route``'s n1) is K2's GCC stage's and K5's,
+    one rule: one block up to 4,096 (a scene where the twiddles, a scene's
+    widest span of packed rows and a spare row fit one block's shared
+    memory, else a packed cross row through the spectra); the split from
+    8,192 to 2^26 (``gcc_rows`` or the spectra, which hold one strip at
+    any mic count); the three-pass split through the spectra above, to
+    2^30."""
     route = cf.gcc_route(n, mics)
     got = route.n1
-    assert got == want == cf.scene_stages(n, mics)[1]
+    assert got == want
+    assert (route.kind == cf.ROUTE_LONG) == (n > cf.FFT_SPLIT_MAX)
     if 1 < got:
         assert got == cf._split_n1(n)
     if n <= cf.FFT_REAL_ONE_BLOCK:

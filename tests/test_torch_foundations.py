@@ -27,6 +27,15 @@ from pyaudiolocalization_tpu_torch.ops import signal as tsig
 from pyaudiolocalization_tpu_torch.utils import config as tcfg
 from pyaudiolocalization_tpu_torch.utils import materials as tmat
 
+
+@pytest.fixture(scope="module")
+def rng():
+    """This module's own generator, seeded as the conftest's session-wide
+    one: drawing from that one would move the inputs of every later test
+    file in the same worker (``test_pallas_fft.py``'s among them)."""
+    return np.random.default_rng(1234)
+
+
 RTOL = 1e-7  # deterministic float64 modules
 REPO = Path(__file__).resolve().parents[1]
 F64 = torch.float64

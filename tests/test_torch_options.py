@@ -33,6 +33,15 @@ from pyaudiolocalization_tpu_torch.ops import gccphat as tgcc
 from pyaudiolocalization_tpu_torch.ops import peaks as tpeaks
 from pyaudiolocalization_tpu_torch.ops import quantile as tq
 
+
+@pytest.fixture(scope="module")
+def rng():
+    """This module's own generator, seeded as the conftest's session-wide
+    one: drawing from that one would move the inputs of every later test
+    file in the same worker (``test_pallas_fft.py``'s among them)."""
+    return np.random.default_rng(1234)
+
+
 FS = 8000.0
 BAND = (300.0, 3400.0)
 MICS = np.array(DEFAULT_CONFIG["mic_positions"], float)

@@ -6,15 +6,16 @@ outputs are left as allocated, so these tests read the launches only.
 
 They hold the split of all eight transforming kernels up to 2^26 (strips
 of 8 at 2,048, of 4 at 4,096, of 2 at 8,192), above that one limit the
-radix-2 passes of K2, K3 and K5 and the three-pass split of K4a, K4b, K6,
-K9 and K1 (``long_plan``), the byte cap on the split's scratch
-(``_launch_rows``, ``scene_chunk``), the GCC routes of K1, K2 and K5
-(``gcc_route``: one block a scene, ``gcc_rows``, the mic rows' spectra
-on the split and in one block) on both sides of every fit limit and the
-passes above 2^26 alone, K3's render through the base rows' spectra from
-2^20 to 2^26, the row chunks of K4a, K4b, K6 and K9, the scene chunks of
-K1, K2, K3 and K5 at the sweep's 65,535 grid limit and under the byte
-cap at 2^25 and 2^26, their one-block schedules up to 4,096 points and
+three-pass split of all eight (``long_plan``), the byte cap on the
+split's scratch (``_launch_rows``, ``scene_chunk``, ``_scene_bytes``),
+the GCC routes of K1, K2 and K5 (``gcc_route``: one block a scene,
+``gcc_rows``, the mic rows' spectra on the split and in one block, the
+three-pass split) on both sides of every fit limit, K3's render through
+the base rows' spectra from 2^20 (on the three-pass split above 2^26)
+with its finish spread over the card, the row chunks of K4a, K4b, K6
+and K9, the scene chunks of K1, K2, K3 and K5 at the sweep's 65,535 grid
+limit and under the byte cap at 2^25 to 2^27, their one-block schedules
+up to 4,096 points and
 their scratch, the exact-length parity path (K7 only), the api from
 recorded files (K1, K4a, K4b), the compat layer's single pair (K4a + K9
 at a power of two, K7 otherwise), the api from a recording long enough
@@ -74,14 +75,13 @@ def _no_tables(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# K4a, K4b and K6 above 2^20: the split to 2^26, the passes above
+# K4a, K4b and K6 above 2^20: the split to 2^26, the three-pass split above
 # ---------------------------------------------------------------------------
 
 def test_spectrum_above_2_20_launches_k4a_on_the_radix2_passes(launches):
     """sig1's spectrum at nfft 2^21 (the bootstrap of a 23.7 s recording at
     44.1 kHz) reaches one K4a launch on the split, n1 = 2,048, with strips
-    of 8 columns and pass-2 strips of 16 rows (the radix-2 passes start
-    above 2^22)."""
+    of 8 columns and pass-2 strips of 16 rows."""
     sig = torch.zeros(1_046_019)
     spec = ttdoa._spectrum(sig, 1 << 21)
     assert spec.shape == ((1 << 20) + 1,) and spec.dtype == torch.complex64
@@ -269,7 +269,7 @@ def test_other_kernels_keep_their_routes_above_2_20(launches, kernel, nfft,
     (``FFT_SPLIT_MAX``): n1 = 1,024 at 2^20, 2,048 from 2^21 to 2^23 and
     4,096 at 2^24 and 2^25, the GCCs through their mic rows' spectra and
     the renders through their base rows' spectra (``render_route``); 2^26
-    and the radix-2 passes above are
+    and the three-pass split above are
     ``test_spectra_routes_reach_2_26``'s."""
     _route(kernel, nfft)
     (args,) = _named(launches, kernel)
@@ -277,9 +277,9 @@ def test_other_kernels_keep_their_routes_above_2_20(launches, kernel, nfft,
         assert args[7:10] == (nfft, n1, n1)
     else:
         assert args[N1_ARGS[kernel]] == (nfft, n1)
-    assert cf.scene_stages(nfft, 4) == (n1, cf.gcc_route(nfft, 4).n1)
+    assert cf.render_route(nfft).n1 == cf.gcc_route(nfft, 4).n1 == n1
     if kernel in ("delay_sum", "scene_windowed"):
-        kind = args[19] if kernel == "delay_sum" else args[35]
+        kind = args[18] if kernel == "delay_sum" else args[34]
         assert kind == cf.ROUTE_SPECTRA
     if kernel in ("gcc_all_pairs", "gcc_windowed", "scene_windowed"):
         kind = args[10 if kernel == "scene_windowed" else 6]
@@ -287,19 +287,22 @@ def test_other_kernels_keep_their_routes_above_2_20(launches, kernel, nfft,
 
 
 # Where K3's and K5's render route (kind, column strip, K4a's pass-2
-# strip, row strip), its buffers (zb0, zb1, z0, z1; K5's z0 is its packed
-# mic rows, spec its GCC's spectra), the spectra and the finish's (groups,
-# partials) sit in each launch's arguments.
-RENDER_ARGS = {"delay_sum": (slice(19, 23), slice(15, 19), 23, slice(24, 26)),
-               "scene_windowed": (slice(35, 39), slice(25, 29), 31,
-                                  slice(39, 41))}
+# strip, row strip), its buffers (zb, z0, z1; K5's z0 is its packed mic
+# rows, spec its GCC's spectra), the spectra and the finish's (groups,
+# partials) sit in each launch's arguments; K3's n1a follows its strips,
+# K5's its GCC's strips.
+RENDER_ARGS = {"delay_sum": (slice(18, 22), slice(15, 18), 23, slice(24, 26)),
+               "scene_windowed": (slice(34, 38), slice(26, 29), 30,
+                                  slice(38, 40))}
+N1A_ARGS = {"delay_sum": 22, "scene_windowed": 14}
 
 
 @pytest.mark.parametrize("nfft,n1,strips", [
     (1 << 20, 1024, (16, 16, 16)), (1 << 21, 2048, (8, 16, 16)),
     (1 << 22, 2048, (8, 8, 8)), (1 << 23, 2048, (8, 4, 4)),
     (1 << 24, 4096, (4, 4, 4)), (1 << 25, 4096, (4, 2, 2)),
-    (1 << 26, 8192, (2, 2, 2)), (1 << 27, 0, (0, 0, 0))])
+    (1 << 26, 8192, (2, 2, 2)), (1 << 27, 16384, (16, 2, 2)),
+    (1 << 28, 32768, (16, 2, 2))])
 def test_renders_from_2_20_take_the_base_rows_spectra(launches, monkeypatch,
                                                       nfft, n1, strips):
     """K3 and K5 on one scene of 4 mics: from 2^20 to 2^26 the render
@@ -307,33 +310,33 @@ def test_renders_from_2_20_take_the_base_rows_spectra(launches, monkeypatch,
     2,048 / 2,048 / 4,096 / 4,096 / 8,192 with ``spectra_plan``'s strips
     (8 columns from n1 = 2,048, 4 at 4,096 and 2 at 8,192, K4a's pass-2
     strip of one packed base row, 8 rows at n2 = 2,048, 4 at 4,096 and 2
-    at 8,192), K4a's packed base rows in the packed mic rows' buffer, no
-    ping-pong copy, the spectra, and the finish spread over 128 blocks a
-    packed mic row with its partials (``finish_groups``); at 2^27 the
-    radix-2 passes, two copies of each buffer, one block a mic row."""
+    at 8,192), K4a's packed base rows in the packed mic rows' buffer, the
+    spectra, and the finish spread over 128 blocks a packed mic row with
+    its partials (``finish_groups``); above 2^26 (2^27, 2^28) the same
+    on the three-pass split (n1 = nfft / 8,192 with its n1a, 16 columns,
+    K4a's pass-2 strip of 2 rows and 2 rows in the mix row pass), with a
+    second buffer of packed mic rows, which its pass A' writes."""
     length = None
-    if nfft > 1 << 25:     # no table, and short rows, at 2^26 and 2^27
+    if nfft > 1 << 25:     # no table, and short rows, from 2^26
         _no_tables(monkeypatch)
         length = 1000
     _route("delay_sum", nfft, length)
     _route("scene_windowed", nfft, length)
-    spectra = nfft <= cf.FFT_SPLIT_MAX
-    kind = cf.ROUTE_SPECTRA if spectra else cf.ROUTE_PASSES
+    long = nfft > cf.FFT_SPLIT_MAX
+    kind = cf.ROUTE_LONG if long else cf.ROUTE_SPECTRA
     for name in RENDER_ARGS:
         (args,) = _named(launches, name)
         rsched, bufs, spec, finish = RENDER_ARGS[name]
         assert args[7:9] == (nfft, n1)
         assert args[rsched] == (kind,) + strips
-        zb0, zb1, z0, z1 = args[bufs]
+        assert args[N1A_ARGS[name]] == cf._long_n1a(nfft) == (
+            cf.long_plan(nfft).n1a if long else 0)
+        zb, z0, z1 = args[bufs]
         groups, part = args[finish]
-        if spectra:
-            assert zb0 == z0 and zb1 is None and z1 is None
-            assert args[spec] is not None
-            assert groups == cf.finish_groups(nfft, 4) == 128
-            assert part is not None
-        else:
-            assert None not in (zb0, zb1, z0, z1)
-            assert (groups, part) == (1, None)
+        assert zb == z0 and (z1 is not None) == long and z1 != z0
+        assert args[spec] is not None
+        assert groups == cf.finish_groups(nfft, 4) == 128
+        assert part is not None
 
 
 @pytest.mark.parametrize("nfft,kind,n1", [
@@ -354,9 +357,9 @@ def test_renders_up_to_2_19_keep_their_launches(launches, nfft, kind, n1):
         assert args[7:9] == (nfft, n1)
         assert args[rsched] == (kind, 0, 0, 0)
         assert args[finish] == (1, None)
-        zb0, zb1, z0, z1 = args[bufs]
-        assert (zb0 is not None) == (kind == cf.ROUTE_ROWS) and zb1 is None
-        assert zb0 != z0 or zb0 is None
+        zb, z0, z1 = args[bufs]
+        assert (zb is not None) == (kind == cf.ROUTE_ROWS) and z1 is None
+        assert zb != z0 or zb is None
         if name == "delay_sum":
             assert args[spec] is None
             assert (z0 is not None) == (kind == cf.ROUTE_ROWS)
@@ -367,12 +370,14 @@ def test_renders_up_to_2_19_keep_their_launches(launches, nfft, kind, n1):
     (1 << 22, 12, 44), (1 << 20, 131, 4), (1 << 20, 132, 1),
     (1 << 20, 256, 1), (1 << 23, 4, 128), (1 << 24, 6, 88),
     (1 << 24, 132, 1), (1 << 25, 4, 128), (1 << 26, 4, 128),
-    (1 << 26, 24, 22), (1 << 27, 4, 1)])
+    (1 << 26, 24, 22), (1 << 27, 4, 128), (1 << 28, 6, 88),
+    (1 << 30, 4, 128), (1 << 27, 132, 1)])
 def test_finish_groups_rule(nfft, rows, want):
     """The finish's blocks a packed mic row (``finish_groups``): one block a
-    mic row up to 2^19, above 2^26 and wherever a launch's rows fill the
-    card's 132 SMs; else (the render's spectra route, 2^20 to 2^26) enough
-    for 264 blocks, at most 128 a packed row."""
+    mic row up to 2^19 and wherever a launch's rows fill the card's 132
+    SMs; else (the render's spectra routes: the split from 2^20 to 2^26,
+    the three-pass split above, to 2^30) enough for 264 blocks, at most
+    128 a packed row."""
     assert cf.finish_groups(nfft, rows) == want
 
 
@@ -427,14 +432,13 @@ def test_k1_and_k9_above_2_20_take_k4a_strips(launches, nfft, strips):
 # ---------------------------------------------------------------------------
 
 # Where each GCC wrapper's (n1, route, column strip, K4a's pass-2 strip,
-# row strip) and its buffers sit in its launch's arguments: K1's (spec0,
-# spec1, cross0; no cross1, it never runs the passes; n1a after the row
-# strip), K2's (spec0, spec1, cross0, cross1) and its (keys, count, part),
-# K5's (packed mic rows 0 and 1, cross0, cross1, spectra) and (keys,
-# count, part).
+# row strip) and its buffers sit in its launch's arguments: K1's and K2's
+# (spec0, spec1, cross0; n1a after the row strip), K2's (keys, count,
+# part), K5's (packed mic rows 0 and 1, cross0, spectra) and (keys, count,
+# part).
 GCC_ARGS = {"gcc_all_pairs": (slice(5, 10), slice(17, 20), None),
-            "gcc_windowed": (slice(5, 10), slice(17, 21), slice(21, 24)),
-            "scene_windowed": (slice(9, 14), slice(27, 32), slice(32, 35))}
+            "gcc_windowed": (slice(5, 10), slice(18, 21), slice(21, 24)),
+            "scene_windowed": (slice(9, 14), slice(27, 31), slice(31, 34))}
 # (nfft, the most mics a scene that one block a scene or ``gcc_rows``
 # holds): one block up to 52 mics at 1,024, 24 at 2,048, 10 at 4,096;
 # ``gcc_rows`` up to 52 at 8,192, 24 at 16,384 and 32,768, 10 at 65,536
@@ -445,7 +449,8 @@ FIT_LIMITS = ((1024, 52), (2048, 24), (4096, 10), (8192, 52), (16384, 24),
 ROUTE_CASES = [(n, m, old) for n, limit in FIT_LIMITS
                for m, old in ((limit, True), (limit + 1, False))
                if m >= 2] + [(1 << 23, 4, False), (1 << 24, 4, False),
-                             (1 << 25, 4, False)]
+                             (1 << 25, 4, False), (1 << 27, 3, False),
+                             (1 << 27, 4, False)]
 
 
 def _gcc_call(kernel, nfft, mics):
@@ -466,15 +471,20 @@ def _gcc_call(kernel, nfft, mics):
 
 @pytest.mark.parametrize("kernel", list(GCC_ARGS))
 @pytest.mark.parametrize("nfft,mics,fits", ROUTE_CASES)
-def test_gcc_routes_by_shape(launches, kernel, nfft, mics, fits):
+def test_gcc_routes_by_shape(launches, monkeypatch, kernel, nfft, mics,
+                             fits):
     """K1, K2 and K5's GCC stage on both sides of every fit limit: where
     one block a scene or ``gcc_rows`` fits they launch as before the
     spectra routes (n1 1 or the split's, no strip, the same buffers);
     beyond it, up to 2^26, through the mic rows' spectra — in one block up
     to 4,096 (n1 = 1, the spectra and nothing else), on the split above
     (K4a's strips, K4a's packed buffer shared with the cross rows, the
-    spectra, K2's and K5's partials) — never on the radix-2 passes, which
-    start at 2^27.  K5's route is K2's at every shape."""
+    spectra, K2's and K5's partials) — and at 2^27 through them on the
+    three-pass split (``long_plan``'s strips, its n1a, the same buffers
+    and partials; K5's second buffer of packed mic rows); never on radix-2
+    passes.  K5's route is K2's at every shape."""
+    if nfft > cf.FFT_SPLIT_MAX:
+        _no_tables(monkeypatch)
     _gcc_call(kernel, nfft, mics)
     (args,) = _named(launches, kernel)
     sched, bufs, parts = GCC_ARGS[kernel]
@@ -486,7 +496,7 @@ def test_gcc_routes_by_shape(launches, kernel, nfft, mics, fits):
         want = cf.ROUTE_BLOCK if nfft <= 4096 else cf.ROUTE_ROWS
         assert (n1, kind) == (1 if nfft <= 4096 else split, want)
     elif nfft > cf.FFT_SPLIT_MAX:
-        assert (n1, kind) == (0, cf.ROUTE_PASSES)
+        assert (n1, kind) == (split, cf.ROUTE_LONG)
     elif nfft <= 4096:
         assert (n1, kind) == (1, cf.ROUTE_SPECTRA_BLOCK)
     else:
@@ -494,59 +504,62 @@ def test_gcc_routes_by_shape(launches, kernel, nfft, mics, fits):
     if kind == cf.ROUTE_SPECTRA:
         assert (cols, rows) == cf.split_strips(split, nfft // split)
         assert s2 == cf.fft_real_rows_strip(nfft // split, (mics + 1) // 2)
+    elif kind == cf.ROUTE_LONG:
+        assert (cols, s2, rows) == (16, 2, 2)
     else:
         assert (cols, s2, rows) == (0, 0, 0)
+    n1a = args[14 if kernel == "scene_windowed" else 10]
+    assert n1a == (cf.long_plan(nfft).n1a if kind == cf.ROUTE_LONG else 0)
     got = [b is not None for b in args[bufs]]
+    spectra = kind in (cf.ROUTE_SPECTRA, cf.ROUTE_LONG)
     if kernel == "scene_windowed":
-        # (packed mic rows 0 and 1, cross0, cross1, spectra); the packed
-        # rows take the cross rows on the spectra route.
-        render_passes = cf.scene_stages(nfft, mics)[0] == 0
-        want = {cf.ROUTE_BLOCK: [True, False, False, False, False],
-                cf.ROUTE_ROWS: [True, False, True, False, False],
-                cf.ROUTE_SPECTRA: [True, render_passes, True, False, True],
-                cf.ROUTE_SPECTRA_BLOCK: [True, False, False, False, True],
-                cf.ROUTE_PASSES: [True, True, True, True, False]}[kind]
-        if kind == cf.ROUTE_SPECTRA:
-            assert args[bufs][2] == args[bufs][0]
-    else:
-        # (spec0, spec1, cross0, cross1; K1 the first three): spec1 the
-        # spectra on the spectra routes, cross0 K4a's packed buffer on the
-        # split's.
-        want = {cf.ROUTE_BLOCK: [False] * 4,
+        # (packed mic rows 0 and 1, cross0, spectra); the packed rows take
+        # the cross rows on the spectra routes, and on the three-pass
+        # split the render's pass A' writes the second buffer.
+        want = {cf.ROUTE_BLOCK: [True, False, False, False],
                 cf.ROUTE_ROWS: [True, False, True, False],
-                cf.ROUTE_SPECTRA: [True, True, True, False],
-                cf.ROUTE_SPECTRA_BLOCK: [False, True, False, False],
-                cf.ROUTE_PASSES: [True] * 4}[kind][:len(got)]
-        if kind == cf.ROUTE_SPECTRA:
-            assert args[bufs][2] == args[bufs][0]
+                cf.ROUTE_SPECTRA: [True, False, True, True],
+                cf.ROUTE_SPECTRA_BLOCK: [True, False, False, True],
+                cf.ROUTE_LONG: [True, True, True, True]}[kind]
+    else:
+        # (spec0, spec1, cross0): spec1 the spectra on the spectra routes,
+        # cross0 K4a's packed buffer on the split's.
+        want = {cf.ROUTE_BLOCK: [False] * 3,
+                cf.ROUTE_ROWS: [True, False, True],
+                cf.ROUTE_SPECTRA: [True, True, True],
+                cf.ROUTE_SPECTRA_BLOCK: [False, True, False],
+                cf.ROUTE_LONG: [True, True, True]}[kind]
+    if spectra:
+        assert args[bufs][2] == args[bufs][0]
     assert got == want
     if parts is not None:
-        split_route = kind in (cf.ROUTE_ROWS, cf.ROUTE_SPECTRA)
+        split_route = kind in (cf.ROUTE_ROWS, cf.ROUTE_SPECTRA,
+                               cf.ROUTE_LONG)
         assert all((p is not None) == split_route for p in args[parts])
 
 
 def test_no_gcc_route_runs_the_passes_up_to_2_22():
-    """For 2 to 128 mics at every power of two from 4 to 2^26 (2^22 before
-    the spectra routes reached 2^24, 2^24 before they reached 2^26) the
-    GCC of K1, K2 and K5 takes one block, ``gcc_rows`` or the mic rows'
-    spectra, never the radix-2 passes, and neither does the render of K3
-    and K5 (``render_route``); at 2^27 both take the passes, at every mic
-    count, but K9 (``corr_schedule``) and K1 (``gcc_all_route``) never
-    do, at any length: at 2^27 the three-pass split.  ``scene_stages``
-    reads the route's n1."""
-    for bits in range(2, 28):
+    """For 2 to 128 mics at every power of two from 4 to 2^30 (2^22 before
+    the spectra routes reached 2^24, 2^24 before they reached 2^26, 2^26
+    before the three-pass split took K2, K3 and K5 to 2^30) the GCC of
+    K1, K2 and K5 takes one block, ``gcc_rows`` or the mic rows' spectra
+    on the split or, above 2^26, on the three-pass split, one rule for the
+    three, and the render of K3 and K5 (``render_route``) the same split
+    as the GCC at each length; K9 (``corr_schedule``) too.  No route of
+    radix-2 passes is left."""
+    for bits in range(2, 31):
         nfft = 1 << bits
-        assert (cf.render_route(nfft).kind == cf.ROUTE_PASSES) == (
-            bits == 27)
+        render = cf.render_route(nfft)
+        assert (render.kind == cf.ROUTE_LONG) == (bits > 26)
         assert cf.corr_schedule(nfft) == cf.fft_real_split(nfft)[0] > 0
         for mics in range(2, 129):
             route = cf.gcc_route(nfft, mics)
-            assert (route.kind == cf.ROUTE_PASSES) == (bits == 27)
-            k1 = cf.gcc_all_route(nfft, mics)
-            assert k1.kind != cf.ROUTE_PASSES and k1.n1 > 0
-            assert (k1 == route) == (bits < 27)
-            assert cf.scene_stages(nfft, mics)[1] == route.n1
-            if route.kind == cf.ROUTE_SPECTRA:
+            assert route.n1 > 0 and route.n1 == render.n1
+            assert (route.kind == cf.ROUTE_LONG) == (bits > 26)
+            if route.kind == cf.ROUTE_LONG or render.kind == (
+                    cf.ROUTE_SPECTRA):
+                assert route == render
+            if route.kind in (cf.ROUTE_SPECTRA, cf.ROUTE_LONG):
                 assert route.n1 == cf.fft_real_split(nfft)[0]
 
 
@@ -568,9 +581,9 @@ def test_shapes_that_fit_keep_their_launches(launches, nfft, mics, want):
         if kernel != "scene_windowed":
             split = want[0] == cf.ROUTE_ROWS
             got = [b is not None for b in args[bufs]]
-            assert got == [split, False, split, False][:len(got)]
+            assert got == [split, False, split]
         else:
-            assert args[bufs][4] is None
+            assert args[bufs][3] is None
         launches.clear()
 
 
@@ -578,11 +591,15 @@ def test_window_partials_follow_the_column_strip():
     """``window_cols``' partials: a block sum per column strip, 16
     columns on ``gcc_rows`` and up to 2^20, 8 from 2^21 to 2^23, 4 at
     2^24 (1,024 blocks a row) and 2^25 (2,048: n2 = 8,192), 2 at 2^26
-    (4,096); none in one block."""
+    (4,096); ``long_cols_window``'s a block sum per block (j1b, strip of
+    16 columns), n1b x 512: 65,536 at 2^27, 131,072 at 2^30; none in one
+    block."""
     for nfft, mics, blocks in ((65536, 4, 16), (1 << 20, 4, 64),
                                (1 << 21, 4, 128), (1 << 22, 12, 256),
                                (1 << 23, 4, 512), (1 << 24, 4, 1024),
-                               (1 << 25, 4, 2048), (1 << 26, 4, 4096)):
+                               (1 << 25, 4, 2048), (1 << 26, 4, 4096),
+                               (1 << 27, 4, 65536), (1 << 28, 3, 65536),
+                               (1 << 30, 4, 131072)):
         keys, count, part = cf._window_scratch(3, nfft,
                                                cf.gcc_route(nfft, mics),
                                                "cpu")
@@ -593,12 +610,10 @@ def test_window_partials_follow_the_column_strip():
 
 
 # The spectra routes past 2^24: (n1, column strip, K4a's pass-2 strip, row
-# strip) at 2^25 and 2^26 (one scene of 4 mics, one row pair), at 2^27 the
-# radix-2 passes of K2, K3 and K5 and the three-pass split of K9 and K1
-# (``LONG_K9_K1``, with n1a).
-LONG_SPECTRA = {25: (4096, 4, 2, 2), 26: (8192, 2, 2, 2), 27: (0, 0, 0, 0)}
-LONG_K9_K1 = {25: (4096, 4, 2, 2, 0), 26: (8192, 2, 2, 2, 0),
-              27: (16384, 16, 2, 2, 128)}
+# strip, n1a) at 2^25 and 2^26 (one scene of 4 mics, one row pair), at
+# 2^27 the three-pass split of all five.
+LONG_SPECTRA = {25: (4096, 4, 2, 2, 0), 26: (8192, 2, 2, 2, 0),
+                27: (16384, 16, 2, 2, 128)}
 
 
 @pytest.mark.parametrize("bits", [25, 26, 27])
@@ -611,20 +626,17 @@ def test_spectra_routes_reach_2_26(launches, monkeypatch, kernel, bits):
     8,192 with strips of 2 (``spectra_plan``; K4a's pass 2 in strips of
     2 at n2 = 8,192), one scratch copy (K1's and K2's packed rows shared
     with the cross rows, the spectra beside them; K5's the same and the
-    render's base rows in its mic rows' buffer); at 2^27 K2, K3 and K5
-    the radix-2 passes (n1 = 0, no strip, two copies), K9 and K1 the
+    render's base rows in its mic rows' buffer); at 2^27 all five the
     three-pass split (n1 = 16,384 = 128 x 128, 16 columns and 2 rows a
-    strip, one scratch copy)."""
+    strip, one scratch copy; the render a second buffer of packed mic
+    rows, which its pass A' writes)."""
     nfft = 1 << bits
     if bits > 25:
         _no_tables(monkeypatch)
     _route(kernel, nfft, 1000)
     (args,) = _named(launches, kernel)
-    n1, cs, s2, rs = LONG_SPECTRA[bits]
-    kind = cf.ROUTE_SPECTRA if n1 else cf.ROUTE_PASSES
-    if kernel in ("whitened_corr", "gcc_all_pairs"):
-        n1, cs, s2, rs, n1a = LONG_K9_K1[bits]
-        kind = cf.ROUTE_LONG if n1a else cf.ROUTE_SPECTRA
+    n1, cs, s2, rs, n1a = LONG_SPECTRA[bits]
+    kind = cf.ROUTE_LONG if n1a else cf.ROUTE_SPECTRA
     if kernel == "whitened_corr":
         assert args[3:8] == (nfft, n1, cs, rs, n1a)
         assert args[11] is not None                # z: one scratch copy
@@ -633,20 +645,19 @@ def test_spectra_routes_reach_2_26(launches, monkeypatch, kernel, bits):
         rsched, bufs, _, _ = RENDER_ARGS[kernel]
         assert args[7:9] == (nfft, n1)
         assert args[rsched] == (kind, cs, s2, rs)
-        zb0, zb1, z0, z1 = args[bufs]
-        assert (zb0 == z0 and zb1 is None and z1 is None) == bool(n1)
+        assert args[N1A_ARGS[kernel]] == n1a
+        zb, z0, z1 = args[bufs]
+        assert zb == z0 and (z1 is not None) == bool(n1a)
     if kernel in GCC_ARGS:
         sched, bufs, _ = GCC_ARGS[kernel]
         assert args[sched] == (n1, kind, cs, s2, rs)
         got = [b is not None for b in args[bufs]]
         if kernel == "scene_windowed":
-            assert got == ([True, False, True, False, True] if n1
-                           else [True, True, True, True, False])
-        elif kernel == "gcc_all_pairs":
-            assert got == [True, True, True] and args[10] == n1a
-            assert args[bufs][0] == args[bufs][2]
+            assert got == [True, bool(n1a), True, True]
         else:
-            assert got == ([True, True, True, False] if n1 else [True] * 4)
+            assert got == [True, True, True]
+            assert args[10] == n1a
+        assert args[bufs][0] == args[bufs][2]
 
 
 @pytest.mark.parametrize("bits,n1a", [(27, 128), (28, 256)])
@@ -658,8 +669,7 @@ def test_k9_and_k1_take_the_three_pass_split_above_2_26(launches, monkeypatch,
     (``long_plan``): n1 = nfft / 8,192 with its n1a, 16 columns and 2 rows
     a strip (K1's K4a pass-2 strip 2), one scratch buffer (K9's packed
     rows; K1's packed mic rows, which the cross rows reuse, beside the
-    spectra), while K2 and K5 keep the radix-2 passes (n1 = 0, two copies
-    of each buffer) at the same shape."""
+    spectra), and K2 the same launch as K1's."""
     _no_tables(monkeypatch)
     nfft = 1 << bits
     n1 = nfft // 8192
@@ -684,23 +694,85 @@ def test_k9_and_k1_take_the_three_pass_split_above_2_26(launches, monkeypatch,
     spec0, spec1, cross0 = k1[17:20]
     assert spec0 == cross0 and spec1 is not None
     assert scratch == [max((mics + 1) // 2, (len(pi) + 1) // 2)]
+    scratch.clear()
     cf.gcc_windowed(torch.zeros(1, mics, 1000), pi, pj, nfft, 1, mask)
     (k2,) = _named(launches, "gcc_windowed")
-    assert k2[5:10] == (0, cf.ROUTE_PASSES, 0, 0, 0)
-    assert None not in k2[17:21]
+    assert k2[1:11] == k1[1:11]
+    assert k2[18] == k2[20] and k2[19] is not None
+    assert None not in k2[21:24]                  # keys, count, partials
+    assert scratch == [max((mics + 1) // 2, (len(pi) + 1) // 2)]
+
+
+@pytest.mark.parametrize("bits,n1a", [(27, 128), (28, 256)])
+@pytest.mark.parametrize("mics", [3, 4])
+def test_k2_k3_and_k5_take_the_three_pass_split_above_2_26(
+        launches, monkeypatch, bits, n1a, mics):
+    """Above 2^26 K2, K3 and K5 (one scene of 3 or 4 mics) launch on the
+    three-pass split, no longer on radix-2 passes: K2 as K1 (its n1, n1a,
+    16 columns and 2 rows a strip, K4a's packed mic rows shared with the
+    cross rows beside the spectra, and its partials: a block sum for each
+    of ``long_cols_window``'s n1b x 512 blocks a cross row), K3 with the
+    base rows' spectra, the packed mic rows, the second buffer its pass
+    A' writes and the finish spread over ``finish_groups``' blocks, K5
+    both stages with one spectra buffer of the GCC's rows and the render's
+    second buffer, K5's buffers the ones ``_scene_bytes`` counts."""
+    _no_tables(monkeypatch)
+    nfft = 1 << bits
+    n1 = nfft // 8192
+    scratch = []
+    stub = cf._scratch
+    monkeypatch.setattr(cf, "_scratch", lambda rows, n, device: (
+        scratch.append(rows) or stub(rows, n, device)))
+    from pyaudiolocalization_tpu_torch.parallel.sweep import _pairs
+    pi, pj = _pairs(mics)
+    couples = (len(pi) + 1) // 2
+    packed = (mics + 1) // 2
+    length = 1000
+    mask = torch.empty(nfft // 2 + 1)
+    base, fade = torch.zeros(1, length), torch.ones(length)
+    tau, gains = torch.zeros(1, mics, 1), torch.ones(1, mics, 1)
+    sched = (n1, cf.ROUTE_LONG, 16, 2, 2, n1a)
+    cf.gcc_windowed(torch.zeros(1, mics, length), pi, pj, nfft, 1, mask)
+    (k2,) = _named(launches, "gcc_windowed")
+    assert k2[5:11] == sched
+    assert scratch == [max(packed, couples)]
+    assert None not in k2[18:24] and k2[18] == k2[20]
+    scratch.clear()
+    cf.delay_sum(base, tau, gains, nfft, length, fade, True)
+    (k3,) = _named(launches, "delay_sum")
+    assert k3[8] == n1 and k3[18:23] == (cf.ROUTE_LONG, 16, 2, 2, n1a)
+    zb, z0, z1 = k3[15:18]
+    assert zb == z0 and None not in (z1, k3[23]) and z1 != z0
+    assert scratch == [packed, packed]
+    assert k3[24] == cf.finish_groups(nfft, mics) > 1 and k3[25] is not None
+    scratch.clear()
+    cf.scene_windowed(base, tau, gains, pi, pj, nfft, length, 1, fade, mask)
+    (k5,) = _named(launches, "scene_windowed")
+    assert k5[7:15] == (nfft, n1) + sched
+    assert k5[34:38] == (cf.ROUTE_LONG, 16, 2, 2)
+    zb, z0, z1, c0, spec = k5[26:31]
+    assert zb == z0 == c0 and None not in (z1, spec) and z1 != z0
+    assert None not in k5[31:34] and k5[38] == k3[24]
+    assert scratch == [max(packed, couples), packed]
+    # A scene's half rows (mics packed across scenes: an odd count's last
+    # row shares its packed row with the next scene's first).
+    halves = max(mics, 2 * couples) + 2 * mics
+    assert cf._scene_bytes(nfft, mics, couples) == halves * nfft * 4
 
 
 @pytest.mark.parametrize("bits,scenes,chunks", [
-    (24, 30, [24, 6]), (25, 25, [12, 12, 1]), (26, 13, [6, 6, 1])])
+    (24, 30, [24, 6]), (25, 25, [12, 12, 1]), (26, 13, [6, 6, 1]),
+    (27, 5, [2, 2, 1])])
 def test_scene_chunks_cap_their_scratch_by_bytes(launches, monkeypatch, bits,
                                                  scenes, chunks):
     """K1, K2, K3 and K5 over ``scenes`` scenes of 4 mics through the
     spectra: each launch takes at most as many scenes as keep its scratch
     within ``SPLIT_SCRATCH_BYTES`` (``scene_chunk``, ``_scene_bytes``:
-    0.67 GB a scene at 2^24, 1.34 GB at 2^25, 2.68 GB at 2^26), 24, 12 and
-    6 scenes, the same chunks for the four, so that the sweep's fused and
-    split paths stay equal to the bit; each chunk's finish spreads over
-    the blocks of its own rows."""
+    0.67 GB a scene at 2^24, 1.34 GB at 2^25, 2.68 GB at 2^26, 7.52 GB
+    on the three-pass split at 2^27), 24, 12, 6 and 2 scenes, the same
+    chunks for the four, so that the sweep's fused and split paths stay
+    equal to the bit; each chunk's finish spreads over the blocks of its
+    own rows."""
     nfft = 1 << bits
     if bits > 25:
         _no_tables(monkeypatch)
@@ -728,6 +800,31 @@ def test_scene_chunks_cap_their_scratch_by_bytes(launches, monkeypatch, bits,
     assert k3[1][0] - k3[0][0] == chunks[0] * out * 4
 
 
+@pytest.mark.parametrize("bits,gb", [(27, 7.52), (28, 15.03),
+                                     (29, 30.06), (30, 60.13)])
+def test_scene_bytes_on_the_three_pass_split(bits, gb):
+    """``_scene_bytes`` of a 4-mic scene (6 pairs, 3 couples) above 2^26:
+    K5's scratch on the three-pass split, the most of the four wrappers' —
+    the packed mic rows, large enough for the cross rows (6 half rows),
+    the second buffer of packed mic rows that the render's pass A' writes
+    (4) and every mic row's spectrum (4): 14 half rows of 4 nfft bytes,
+    7.52 GB at 2^27 to 60.1 GB at 2^30.  K1
+    and K2 hold 10 of them, K3 9.  One scene a launch up to 2^30, where
+    its 60.1 GB fit an 80 GB card beside the twiddle table's 4.3 GB; from
+    2^28 two scenes at once pass ``SPLIT_SCRATCH_BYTES`` (16 GiB), from
+    2^29 one does, and a chunk short of the batch keeps two all the
+    same."""
+    nfft = 1 << bits
+    per = cf._scene_bytes(nfft, 4, 3)
+    assert per == 14 * nfft * 4 and abs(per / 1e9 - gb) < 0.01
+    assert cf._scene_bytes(cf.FFT_SPLIT_MAX, 4, 3) == (
+        10 * cf.FFT_SPLIT_MAX * 4)          # the split's count at 2^26
+    assert cf.scene_chunk(1, 4, 6, nfft) == 1
+    assert cf.scene_chunk(5, 4, 6, nfft) == 2
+    assert (per <= cf.SPLIT_SCRATCH_BYTES) == (bits <= 28)
+    assert per + 8 * (nfft // 2 + nfft // 8192) < 80e9
+
+
 # Where each transforming kernel's (nfft, n1) sits in its launch's
 # arguments (K5's n1 of its render, then of its GCC).
 N1_OF = dict(N1_ARGS, fft_real=slice(3, 5), bootstrap_peaks=slice(4, 6),
@@ -735,14 +832,13 @@ N1_OF = dict(N1_ARGS, fft_real=slice(3, 5), bootstrap_peaks=slice(4, 6),
 
 
 @pytest.mark.parametrize("bits,n1", [(24, 4096), (25, 4096), (26, 8192),
-                                     (27, 0)])
+                                     (27, 16384)])
 def test_all_transforming_kernels_leave_the_split_together(
         launches, monkeypatch, bits, n1):
     """All eight kernels that transform (K4a, K4b, K6, K9, K1, K2, K3, K5)
     launch on the split at 2^24 and 2^25 (n1 = 4,096) and 2^26
-    (``FFT_SPLIT_MAX``, n1 = 8,192), one limit; at 2^27 K2, K3 and K5
-    take the radix-2 passes (n1 = 0) together, and K4a, K4b, K6, K9 and
-    K1 the three-pass split (n1 = 16,384)."""
+    (``FFT_SPLIT_MAX``, n1 = 8,192), one limit; at 2^27 all eight the
+    three-pass split (n1 = 16,384)."""
     nfft = 1 << bits
     length = None
     if bits > 25:          # no table, and short rows, at 2^26 and 2^27
@@ -762,12 +858,7 @@ def test_all_transforming_kernels_leave_the_split_together(
         got = args[N1_OF[name]]
         if name == "scene_windowed":
             got = args[7:10]
-        want = n1
-        if bits == 27 and name in ("fft_real", "bootstrap_peaks",
-                                   "noise_bootstrap_peaks", "whitened_corr",
-                                   "gcc_all_pairs"):
-            want = 16384
-        assert got == (nfft,) + (want,) * (len(got) - 1), name
+        assert got == (nfft,) + (n1,) * (len(got) - 1), name
 
 
 # ---------------------------------------------------------------------------
@@ -956,18 +1047,16 @@ def test_scene_wrappers_run_one_block_up_to_4096(launches, nfft, mics, kind):
                       snr, seeds)
     spectra = kind == cf.ROUTE_SPECTRA_BLOCK
     (k3,) = _named(launches, "delay_sum")
-    assert k3[8] == 1 and k3[15:19] == (None,) * 4
+    assert k3[8] == 1 and k3[15:18] == (None,) * 3
     (k2,) = _named(launches, "gcc_windowed")
     assert k2[5:10] == (1, kind, 0, 0, 0) and k2[21:24] == (None,) * 3
-    # spec0, spec1 (the spectra), c0, c1
-    assert [b is not None for b in k2[17:21]] == [False, spectra, False,
-                                                  False]
+    # spec0, spec1 (the spectra), c0
+    assert [b is not None for b in k2[18:21]] == [False, spectra, False]
     (k5,) = _named(launches, "scene_windowed")
-    assert k5[8:11] == (1, 1, kind) and k5[25:27] == (None, None)
-    assert k5[27] is not None and k5[32:35] == (None,) * 3
-    # z1, c0, c1, the spectra
-    assert [b is not None for b in k5[28:32]] == [False, False, False,
-                                                  spectra]
+    assert k5[8:11] == (1, 1, kind) and k5[26] is None
+    assert k5[27] is not None and k5[31:34] == (None,) * 3
+    # z1, c0, the spectra
+    assert [b is not None for b in k5[28:31]] == [False, False, spectra]
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,15 @@ from pyaudiolocalization_tpu_torch.models import cluster as tcl
 from pyaudiolocalization_tpu_torch.models import solver as tsol
 from pyaudiolocalization_tpu_torch.models import uncertainty as tunc
 
+
+@pytest.fixture(scope="module")
+def rng():
+    """This module's own generator, seeded as the conftest's session-wide
+    one: drawing from that one would move the inputs of every later test
+    file in the same worker (``test_pallas_fft.py``'s among them)."""
+    return np.random.default_rng(1234)
+
+
 MICS = np.array(DEFAULT_CONFIG["mic_positions"], float)
 PI = [0, 0, 0, 1, 1, 2]
 PJ = [1, 2, 3, 2, 3, 3]

@@ -1,8 +1,8 @@
 """The four-step split of every transforming kernel at 2^25 and 2^26, and
-K4a's, K4b's and K6's three-pass split above (2^27 to 2^30), checked on
-the CPU: the rules that pick its shapes, strips, shared memory
-and launches (``cuda_fft.fft_real_split``, ``split_strips``,
-``fft_real_rows_strip``, ``split_plan``, ``spectra_plan``, ``_split_n1``,
+its three-pass split above (2^27 to 2^30), checked on the CPU: the rules
+that pick its shapes, strips, shared memory and launches
+(``cuda_fft.fft_real_split``, ``split_strips``, ``fft_real_rows_strip``,
+``split_plan``, ``spectra_plan``, ``long_plan``, ``_split_n1``,
 ``_launch_rows``), the one limit ``FFT_SPLIT_MAX`` of K4a, K4b, K6 and
 the spectra routes of K9, K1, K2, K3 and K5 (``gcc_route``,
 ``render_route``, ``corr_schedule``), the twiddle table's n2-point copy
@@ -13,15 +13,17 @@ table read as ``HiTable`` reads it, against ``np.fft`` or the float64
 twins: K4a, K4b, K9 and K3's render.  At 2^26 the maps alone (a model
 there would take twice 2^25's memory).
 
-At 2^27 K2, K3 and K5 take the radix-2 passes, and K4a, K4b, K6, K9 and
-K1 the three-pass split (``long_plan``, ``FFT_LONG_MAX``): its plan and
-limits at 2^27 to 2^30, one block's maps at 2^27 by index arithmetic,
-and a float64 numpy model of its passes (A and B, K4a's row pass,
-``boot_rows_long``, B' and A' with the maxima; K9's and K1's
-``corr_rows_long`` and A' with the correlations) whose factors n1a x n1b
-x n2 are the model's arguments, small, against ``np.fft``, the float64
-twins and, for K9 and K1, the JAX package's GCC.  No n-point table above
-2^25 is built here: at 2^27 it holds 2^26 entries.
+Above 2^26 every transforming kernel takes the three-pass split
+(``long_plan``, ``FFT_LONG_MAX``), and no route is left to radix-2
+passes: its plan and limits at 2^27 to 2^30, one block's maps at 2^27 by
+index arithmetic, and a float64 numpy model of its passes (A and B, K4a's
+row pass, ``boot_rows_long``, B' and A' with the maxima; K9's and the
+GCCs' ``corr_rows_long`` and A' with the correlations or with K2's window
+and statistics; K3's ``render_spec_rows_long``, A' into the render's
+second buffer and the finish) whose factors n1a x n1b x n2 are the
+model's arguments, small, against ``np.fft``, the float64 twins and the
+JAX package.  No n-point table above 2^25 is built here: at 2^27 it
+holds 2^26 entries.
 """
 
 import numpy as np
@@ -113,13 +115,19 @@ def test_long_split_plan(bits):
     assert cf._twiddle_lengths(n) == [n, n1, n2]
 
 
-def test_passes_above_2_26():
-    """At 2^27, past ``FFT_SPLIT_MAX``, K4a, K4b and K6 leave the radix-2
-    passes for the three-pass split (``long_plan``): n1 = 128 x 128 with
-    n2 = 8,192, column strips of 16, row strips of 2, one copy of the
-    packed rows' scratch (32 rows a launch under the 16 GiB cap), the
-    n1a- and n1b-point half tables after the n-, n1- and n2-point ones;
-    ``split_plan`` still plans the two-pass split alone."""
+def test_passes_above_2_26(monkeypatch):
+    """Above ``FFT_SPLIT_MAX`` no kernel runs radix-2 passes any more.  At
+    2^27 K4a, K4b and K6 take the three-pass split (``long_plan``): n1 =
+    128 x 128 with n2 = 8,192, column strips of 16, row strips of 2, one
+    copy of the packed rows' scratch (32 rows a launch under the 16 GiB
+    cap), the n1a- and n1b-point half tables after the n-, n1- and
+    n2-point ones; ``split_plan`` still plans the two-pass split alone.
+    From 2^9 to 2^30 every route of K1, K2, K3 and K5 (``gcc_route`` at 2
+    to 16 mics, ``render_route``) is one of the split kinds — one block,
+    ``gcc_rows`` / ``render_rows``, the spectra on the split or in one
+    block, the three-pass split above 2^26 — with an n1 > 0; past
+    ``FFT_LONG_MAX`` the routes and every wrapper raise (the CUDA branch
+    forced on CPU tensors, nothing launched)."""
     n = 1 << 27
     assert cf.FFT_SPLIT_MAX == 1 << 26 < n
     assert cf._split_n1(n) == 16384 and cf._long_n1a(n) == 128
@@ -130,6 +138,36 @@ def test_passes_above_2_26():
     assert (32 // 2) * n * 8 <= cf.SPLIT_SCRATCH_BYTES
     assert cf._twiddle_lengths(n) == [n, 16384, 8192, 128, 128]
     assert cf.corr_schedule(n) == 16384 and cf._corr_strips(n) == (16, 2)
+    kinds = {cf.ROUTE_BLOCK, cf.ROUTE_ROWS, cf.ROUTE_SPECTRA,
+             cf.ROUTE_SPECTRA_BLOCK, cf.ROUTE_LONG}
+    assert set(cf.ROUTE_NAMES) == kinds and not hasattr(cf, "ROUTE_PASSES")
+    for bits in range(9, 31):
+        nfft = 1 << bits
+        routes = [cf.render_route(nfft)] + [cf.gcc_route(nfft, m)
+                                            for m in range(2, 17)]
+        for route in routes:
+            assert route.kind in kinds and route.n1 > 0
+            assert (route.kind == cf.ROUTE_LONG) == (bits > 26)
+    big = 2 * cf.FFT_LONG_MAX
+    for rule in (cf.render_route, lambda x: cf.gcc_route(x, 4)):
+        with pytest.raises(ValueError, match="FFT_LONG_MAX"):
+            rule(big)
+    launched = []
+    monkeypatch.setattr(cf, "_use_plain", lambda *tensors: False)
+    monkeypatch.setattr(cf, "_launch", lambda *a: launched.append(a))
+    sig, mask = torch.zeros(1, 4, 100), torch.ones(8)
+    base, fade = torch.zeros(1, 100), torch.ones(100)
+    tau, gains = torch.zeros(1, 4, 1), torch.ones(1, 4, 1)
+    pi, pj = fs._pairs(4)
+    calls = (lambda: cf.gcc_all_pairs(sig, pi, pj, big, mask),
+             lambda: cf.gcc_windowed(sig, pi, pj, big, 1, mask),
+             lambda: cf.delay_sum(base, tau, gains, big, 100, fade, True),
+             lambda: cf.scene_windowed(base, tau, gains, pi, pj, big, 100,
+                                       1, fade, mask))
+    for call in calls:
+        with pytest.raises(ValueError, match="FFT_LONG_MAX"):
+            call()
+    assert not launched
 
 
 # The three-pass split at 2^27 to 2^30: (n1a, n1b), rows a launch under
@@ -151,8 +189,8 @@ def test_three_pass_plan(bits):
     row passes in strips of 2 rows at any batch (row k1 and its partner),
     163,968 bytes (``corr_rows_long`` in 1,024 threads); the launches'
     rows, grids within their limits and the int index products below
-    2^31; the entry points' arguments (n1, strips, n1a), K9's and K1's
-    too."""
+    2^31; the entry points' arguments (n1, strips, n1a), K9's and those of
+    the routes of K1, K2, K3 and K5 too."""
     n = 1 << bits
     (n1a, n1b), rows, (a_smem, b_smem) = THREE[bits]
     n1, n2 = cf.fft_real_split(n)
@@ -188,7 +226,8 @@ def test_three_pass_plan(bits):
     # K9 and K1: n1, strips (16 columns, 2 rows) and n1a as K4a's;
     # ``corr_rows_long``'s 1,024 threads, ``long_cols_corr``'s n1a.
     assert cf.corr_schedule(n) == n1 and cf._corr_strips(n) == (16, 2)
-    assert cf.gcc_all_route(n, 4) == cf.GccRoute(cf.ROUTE_LONG, n1, 16, 2)
+    long = cf.GccRoute(cf.ROUTE_LONG, n1, 16, 2)
+    assert cf.gcc_route(n, 4) == cf.render_route(n) == long
     assert n2 * plan.corr_rows.strip // 16 == 1024 and n1a <= 1024
 
 
@@ -352,17 +391,16 @@ def test_three_pass_bootstrap_model(factors):
         assert np.abs(peaks - plain).max() < tol
 
 
-def corr_rows_long_model(pairs, mask, n1, n2):
-    """``corr_rows_long`` (K9's and K1's row pass of the three-pass split)
-    over packed cross rows, each as its loader gives it: ``pairs`` yields
-    the spectra rows (a0, b0, a1, b1) (n/2 + 1,) of each packed cross row,
-    a1 and b1 None without a second pair.  Blocks of 2 rows (row b and
+def rows_long_model(gathers, n1, n2):
+    """A row pass of the three-pass split that gathers from natural-order
+    spectra (``corr_rows_long``, ``render_spec_rows_long``) over packed
+    rows, each given by a function of the lower bins q <= n/2 that returns
+    its two Hermitian halves (ya, yb) there.  Blocks of 2 rows (row b and
     its partner n1 - b; block 0 rows 0 and n1/2): each mirror-pair task
-    gathers bin q <= n/2, whitens times the band and stores the pair
-    (``store_pair``), then the inverse row DFTs, written back without the
-    conjugate twiddle -> yields each packed cross row (n1, n2).  Asserts
-    that the tasks gather every bin q <= n/2 once and that every row is
-    written once."""
+    gathers bin q and stores the pair (``store_pair``), then the inverse
+    row DFTs, written back without the conjugate twiddle -> yields each
+    packed row (n1, n2).  Asserts that the tasks gather every bin q <= n/2
+    once and that every row is written once."""
     n = n1 * n2
     nb = n1 // 2
     slot_rows = fs._slot_rows(n1, 2)
@@ -372,10 +410,8 @@ def corr_rows_long_model(pairs, mask, n1, n2):
     q = tasks[5]
     assert np.array_equal(np.bincount(q, minlength=n // 2 + 1),
                           np.ones(n // 2 + 1, int))
-    for a0, b0, a1, b1 in pairs:
-        ya = fs._whiten(a0[q], b0[q]) * mask[q]
-        yb = (np.zeros_like(ya) if a1 is None
-              else fs._whiten(a1[q], b1[q]) * mask[q])
+    for gather in gathers:
+        ya, yb = gather(q)
         work = np.full((nb, n2, 2), np.nan, complex)
         fs._store_pairs(work, tasks, ya, yb, n)
         out = np.full((n1, n2), np.nan, complex)
@@ -383,13 +419,30 @@ def corr_rows_long_model(pairs, mask, n1, n2):
         yield out
 
 
-def long_corr_cols_model(y, n1a, n1b, n2, strip=fs.S):
-    """B' (the conjugate twiddle, the inverse n1b-point DFTs) and A' with
-    the correlations (``long_cols_corr``: the conjugate W_n1, the inverse
-    n1a-point DFTs, times 1/n) on packed cross rows y (packed, n1, n2) ->
-    (2 * packed, n): the real part of packed row c to row 2c, the
-    imaginary part to row 2c + 1, sample n2 (n1b j1a + j1b) + j2 from slot
-    (j1a, s) of block (j1b, strip); asserts every sample written once."""
+def corr_rows_long_model(pairs, mask, n1, n2):
+    """``corr_rows_long`` (the row pass of K9's and the GCCs' three-pass
+    split) over packed cross rows, each as its loader gives it: ``pairs``
+    yields the spectra rows (a0, b0, a1, b1) (n/2 + 1,) of each packed
+    cross row, a1 and b1 None without a second pair: whiten times the
+    band (``rows_long_model``)."""
+    def gather(a0, b0, a1, b1):
+        def at(q):
+            ya = fs._whiten(a0[q], b0[q]) * mask[q]
+            yb = (np.zeros_like(ya) if a1 is None
+                  else fs._whiten(a1[q], b1[q]) * mask[q])
+            return ya, yb
+        return at
+
+    yield from rows_long_model((gather(*p) for p in pairs), n1, n2)
+
+
+def long_cols_inverse_model(y, n1a, n1b, n2, strip=fs.S):
+    """B' (the conjugate twiddle, the inverse n1b-point DFTs) and A' up to
+    its epilogue (``long_cols_a_inverse``: the conjugate W_n1, the inverse
+    n1a-point DFTs) on packed rows y (packed, n1, n2) -> ((packed, blocks,
+    n1a, strip) the unscaled inverse of block (j1b, strip) in its slots
+    (j1a, s), (blocks, n1a * strip) the sample n2 (n1b j1a + j1b) + j2 each
+    slot holds); asserts that A' leaves every sample once."""
     packed = y.shape[0]
     n1 = n1a * n1b
     n = n1 * n2
@@ -406,6 +459,17 @@ def long_corr_cols_model(y, n1a, n1b, n2, strip=fs.S):
                         -1.0)
     assert np.array_equal(np.bincount(t.ravel(), minlength=n),
                           np.ones(n, int))
+    return cols, t
+
+
+def long_corr_cols_model(y, n1a, n1b, n2, strip=fs.S):
+    """B' and A' with the correlations (``long_cols_corr``, times 1/n) on
+    packed cross rows y (packed, n1, n2) -> (2 * packed, n): the real part
+    of packed row c to row 2c, the imaginary part to row 2c + 1, sample n2
+    (n1b j1a + j1b) + j2 from slot (j1a, s) of block (j1b, strip)."""
+    packed = y.shape[0]
+    n = n1a * n1b * n2
+    cols, t = long_cols_inverse_model(y, n1a, n1b, n2, strip)
     out = np.full((packed, 2, n), np.nan)
     vals = cols.reshape(packed, *t.shape)
     out[:, 0, t] = vals.real / n
@@ -552,6 +616,367 @@ def test_long_models_match_jax_package():
     assert np.abs(plain - want).max() < tol
 
 
+def render_rows_long_model(spec, tau, gain, n1, n2):
+    """``render_spec_rows_long`` (K3's and K5's mix row pass of the
+    three-pass split) over the packed mic rows of tau / gain (scenes,
+    mics, paths): packed row pm mixes mic rows 2pm and 2pm + 1 (row scene
+    * mics + mic: an odd mic count packs across scenes) from the half
+    spectra spec (scenes, n/2 + 1) of their scenes, times
+    ``mic_response`` (``rows_long_model``)."""
+    scenes, mics, paths = tau.shape
+    rows = scenes * mics
+    n = n1 * n2
+    tau_r, gain_r = tau.reshape(rows, paths), gain.reshape(rows, paths)
+
+    def gather(pm):
+        ra, rb = 2 * pm, 2 * pm + 1
+
+        def at(q):
+            ya = spec[ra // mics][q] * fs._mic_response(tau_r[ra],
+                                                        gain_r[ra], q, n)
+            yb = np.zeros_like(ya)
+            if rb < rows:
+                yb = spec[rb // mics][q] * fs._mic_response(
+                    tau_r[rb], gain_r[rb], q, n)
+            return ya, yb
+        return at
+
+    yield from rows_long_model(
+        (gather(pm) for pm in range((rows + 1) // 2)), n1, n2)
+
+
+def long_render_model(base, tau, gain, n1a, n1b, n2):
+    """K3's render stage on the three-pass split n1a x n1b x n2: K4a's
+    three passes into the bases' half spectra (every bin written once),
+    ``render_spec_rows_long``, B' and A' (``long_cols_render``: the
+    unscaled inverse to its natural place, in a buffer of its own) ->
+    (scenes, mics, n), the packed inverse's rows times 1/n (the finish's
+    scale)."""
+    scenes, mics, _ = tau.shape
+    n1 = n1a * n1b
+    n = n1 * n2
+    spec, writes = long_fft_real_model(base, n1a, n1b, n2)
+    assert np.array_equal(writes, np.ones_like(writes))
+    y = np.stack(list(render_rows_long_model(spec, tau, gain, n1, n2)))
+    cols, t = long_cols_inverse_model(y, n1a, n1b, n2)
+    packed = y.shape[0]
+    natural = np.full((packed, n), np.nan, complex)
+    natural[:, t] = cols.reshape(packed, *t.shape)
+    out = np.stack([natural.real, natural.imag], 1).reshape(-1, n)
+    return out[:scenes * mics].reshape(scenes, mics, n) / n
+
+
+def long_window_stats_model(cols, t, n, w, order, threads):
+    """``long_cols_window`` on one packed cross row's A' output cols
+    (blocks, n1a, strip), unscaled, slot (j1a, s) of block (j1b, strip)
+    holding sample t[block, j1a * strip + s], the blocks taken in
+    ``order``: each block's sum of |corr| into the partials and its (max,
+    smallest index) as a 64-bit atomic maximum (``arg_key``); the window j
+    < w or j >= n - w; the row's last block sums the partials in a fixed
+    order, thread x of its ``threads`` those of blocks x, x + threads, ...
+    in turn, then the threads' sums -> (win (2, 2w), stats (2, 3)) for the
+    real and imaginary parts."""
+    nb = cols.shape[0]
+    j = t.reshape(nb, -1)
+    win = np.full((2, 2 * w), np.nan)
+    stats = np.zeros((2, 3))
+    for h, part in enumerate((cols.real / n, cols.imag / n)):
+        part = part.reshape(nb, -1)
+        partials = np.abs(part).sum(axis=1)
+        keys = np.zeros((), np.uint64)
+        for b in order:
+            top = part[b].max()
+            keys = max(keys, fs.arg_key(np.float32(top),
+                                        j[b][part[b] == top].min()))
+        m, idx = fs.arg_unkey(np.array(keys))
+        lanes = np.zeros(threads)
+        for x in range(threads):
+            for b in range(x, nb, threads):
+                lanes[x] += partials[b]
+        stats[h] = lanes.sum() / n, m, idx
+        at = np.where(j < w, w + j, np.where(j >= n - w, j - (n - w), -1))
+        assert np.array_equal(np.bincount(at[at >= 0], minlength=2 * w),
+                              np.ones(2 * w, int))
+        win[h, at[at >= 0]] = part[at >= 0]
+    return win, stats
+
+
+def long_gcc_window_model(sig, pairs_i, pairs_j, mask, wq, n1a, n1b, n2,
+                          seed=0):
+    """K2's GCC stage (K5's too) on the three-pass split n1a x n1b x n2:
+    K4a's three passes into the mic rows' spectra, ``corr_rows_long`` with
+    ``PairIndexLoad``, B' and A' with the window and the statistics
+    (``long_cols_window``, its blocks in a shuffled order, the last
+    block's n1a threads: ``fft_threads(n1a, 16)``) -> (win (scenes, P,
+    2w), stats (scenes, P, 3))."""
+    scenes, mics, length = sig.shape
+    n1 = n1a * n1b
+    n = n1 * n2
+    w = wq * 128
+    spec, writes = long_fft_real_model(sig.reshape(scenes * mics, length),
+                                       n1a, n1b, n2)
+    assert np.array_equal(writes, np.ones_like(writes))
+    pairs = len(pairs_i)
+    couples = (pairs + 1) // 2
+
+    def load(rc):
+        scene, c = divmod(rc, couples)
+        m0 = scene * mics
+        p1 = min(2 * c + 1, pairs - 1)
+        return (spec[m0 + pairs_i[2 * c]], spec[m0 + pairs_j[2 * c]],
+                spec[m0 + pairs_i[p1]] if 2 * c + 1 < pairs else None,
+                spec[m0 + pairs_j[p1]] if 2 * c + 1 < pairs else None)
+
+    rng = np.random.default_rng(seed)
+    win = np.zeros((scenes * couples, 2, 2 * w))
+    stats = np.zeros((scenes * couples, 2, 3))
+    rows = corr_rows_long_model(map(load, range(scenes * couples)), mask,
+                                n1, n2)
+    for rc, y in enumerate(rows):
+        cols, t = long_cols_inverse_model(y[None], n1a, n1b, n2)
+        order = rng.permutation(cols.shape[1])
+        win[rc], stats[rc] = long_window_stats_model(cols[0], t, n, w, order,
+                                                     threads=n1a)
+    win = win.reshape(scenes, 2 * couples, 2 * w)[:, :pairs]
+    return win, stats.reshape(scenes, 2 * couples, 3)[:, :pairs]
+
+
+def _render_reference(base, tau, gain, n):
+    """The render's transform by ``np.fft``: irfft(rfft(base) * H_m) with
+    H_m(k) = sum_p g_p exp(-2 pi i k tau_p / n) and a real Nyquist bin,
+    (scenes, mics, n)."""
+    spec = np.fft.rfft(base, n=n)[:, None, :]
+    k = np.arange(n // 2 + 1)
+    turns = k * tau[..., None] / n
+    turns -= np.floor(turns)
+    mixed = spec * (gain[..., None] * np.exp(-2j * np.pi * turns)).sum(-2)
+    mixed[..., -1] = mixed[..., -1].real
+    return np.fft.irfft(mixed, n=n)
+
+
+def _window_reference(corr, wq):
+    """The lag window and the statistics of correlations (..., n) by
+    numpy: lags [-w, w), mean |corr|, the maximum and its first index."""
+    w = wq * 128
+    win = np.concatenate([corr[..., -w:], corr[..., :w]], -1)
+    return win, np.stack([np.abs(corr).mean(-1), corr.max(-1),
+                          corr.argmax(-1)], -1)
+
+
+@pytest.mark.parametrize("factors", FACTORS)
+def test_three_pass_render_model(factors):
+    """K3's render (K5's too) on the three-pass split, one scene of 4 mics
+    and one path and 2 scenes of 3 mics and 3 paths (an odd mic count: a
+    packed mic row across two scenes): the mix row pass without the
+    twiddle, B' and A' into the second buffer, against the transform by
+    ``np.fft`` and ``delay_sum_plain``'s (no finalize, fade 1) within 1e-9
+    of the max; then (at the two small factors: the finish does not
+    depend on them) the finish spread over ``finish_groups``' 128 blocks
+    a packed row of one 4-mic scene, 88 of the 2 x 3 mic rows
+    (``finish_spread``, its partials in block order), with the
+    finalize, the fade and the noise, against ``delay_sum_plain`` in
+    float64 within 1e-9 of the max."""
+    n = int(np.prod(factors))
+    rng = np.random.default_rng(n + 5)
+    t = torch.from_numpy
+    for scenes, mics, paths in ((1, 4, 1), (2, 3, 3)):
+        groups = cf.finish_groups(1 << 27, scenes * mics)
+        assert groups == {4: 128, 6: 88}[scenes * mics]
+        base, tau, gain = fs._render_case(rng, scenes, mics, paths, n)
+        got = long_render_model(base, tau, gain, *factors)
+        want = _render_reference(base, tau, gain, n)
+        assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
+        plain = cf.delay_sum_plain(t(base), t(tau), t(gain), n, n,
+                                   torch.ones(n, dtype=torch.float64),
+                                   False).numpy()
+        assert np.abs(got - plain).max() < 1e-9 * np.abs(plain).max()
+        if n > 1 << 14:
+            continue
+        out = n - n // 8
+        fade = rng.uniform(0.5, 1.0, out)
+        snr, seeds = fs._noise_inputs(rng, scenes)
+        finished = np.stack([
+            fs.finish_spread_model(got[s, m, :out] * fade, True, snr, seeds,
+                                   s, m, groups)[0]
+            for s in range(scenes) for m in range(mics)])
+        want = cf.delay_sum_plain(t(base), t(tau), t(gain), n, out, t(fade),
+                                  True, t(snr), t(seeds)).numpy()
+        want = want.reshape(-1, out)
+        assert np.abs(finished - want).max() < 1e-9 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("band", [None, (300.0, 3400.0)])
+@pytest.mark.parametrize("factors", FACTORS)
+def test_three_pass_window_model(factors, band):
+    """K2's GCC stage (K5's too) on the three-pass split, one scene of 3
+    mics (an odd pair count) and of 4, unbanded and band-limited: K4a's
+    three passes, the pair-indexed row pass, B' and A' with the window and
+    the statistics (65,536 blocks a row at 2^27; here each row's blocks
+    in a shuffled order), against the window and statistics of the
+    pairs' correlations by ``np.fft`` and against ``gcc_windowed_plain``
+    in float64: windows within 1e-9 of the peak, maxima within float32's
+    rounding (the key holds them as float32), means within 1e-12, the
+    argmax equal."""
+    n = int(np.prod(factors))
+    rng = np.random.default_rng(n + 6)
+    mask = _mask(n, band)
+    for mics in (3, 4):
+        sig = rng.standard_normal((1, mics, n - n // 3))
+        pi, pj = fs._pairs(mics)
+        wq = 2
+        win, stats = long_gcc_window_model(sig, pi, pj, mask, wq, *factors,
+                                           seed=mics)
+        spec = np.fft.rfft(sig, n=n)
+        corr = _corr_reference(spec[:, pi], spec[:, pj], mask, n)
+        for w2, s2 in (_window_reference(corr, wq),
+                       (x.numpy() for x in cf.gcc_windowed_plain(
+                           torch.from_numpy(sig), pi, pj, n, wq,
+                           torch.from_numpy(mask)))):
+            tol = 1e-9 * np.abs(corr).max()
+            assert win.shape == w2.shape and stats.shape == s2.shape
+            assert np.abs(win - w2).max() < tol
+            assert np.array_equal(stats[..., 2], s2[..., 2])
+            assert (np.abs(stats[..., 1] - s2[..., 1])
+                    <= 2.0 ** -24 * np.abs(s2[..., 1])).all()
+            assert np.abs(stats[..., 0] - s2[..., 0]).max() < 1e-12
+
+
+def test_three_pass_window_keeps_the_smallest_tied_index():
+    """``long_cols_window``'s keys on a planted tie of the maximum in
+    three blocks (the smallest index in the last block to run) and a
+    silent row whose zeros carry both signs, at 8 x 8 x 64: the smallest
+    natural index (``torch.argmax``'s first occurrence) whatever the
+    order of the blocks, and the block-order sum of the partials the same
+    in every order."""
+    n1a, n1b, n2 = FACTORS[0]
+    n = n1a * n1b * n2
+    strips = n2 // fs.S
+    _, _, j1b, _ = _long_a_maps(n1a, n1b, n2, fs.S)
+    t = _long_a_maps(n1a, n1b, n2, fs.S)[0]
+    rng = np.random.default_rng(n)
+    corr = rng.uniform(-1, 0.5, n).astype(np.float32)
+    ties = [t[5, 3 * fs.S + 2], 17, t[-1, -1]]      # three blocks
+    assert len({int(np.argwhere(t == x)[0, 0]) for x in ties}) == 3
+    corr[ties] = 0.75
+    zero = np.where(rng.random(n) < 0.5, np.float32(-0.0), np.float32(0.0))
+    zero[0] = -0.0
+    natural = (corr.astype(float) * n + 1j * zero.astype(float))
+    cols = natural[t].reshape(-1, n1a, fs.S)
+    blocks = n1b * strips
+    seen = []
+    for order in (np.arange(blocks), np.arange(blocks)[::-1],
+                  rng.permutation(blocks)):
+        _, stats = long_window_stats_model(cols, t, n, 128, order, n1a)
+        assert stats[0, 2] == 17 == int(torch.argmax(torch.from_numpy(corr)))
+        assert stats[0, 1] == np.float32(0.75)
+        assert stats[1, 2] == 0 and stats[1, 1] == 0
+        seen.append(stats[0, 0])
+    assert seen[0] == seen[1] == seen[2]
+
+
+def test_long_render_and_window_match_jax_package():
+    """The three-pass models of K3's render and K2's GCC stage, and the
+    port's plain versions (the functions the card's kernels are held to),
+    at the first of ``FACTORS`` (8 x 8 x 64 = 4,096 points), against the
+    JAX package's Pallas kernels in interpret mode on the same seeded
+    float32 inputs, as ``tests/test_torch_windowed.py`` and
+    ``tests/test_torch_simulator.py`` hold the twins to them:
+    ``bfly_delay_sum`` (ops/pallas_fft.py:1851) within 5e-5 of the peak
+    (the TPU kernel's float32 ramp phases) and ``bfly_gcc_windowed``
+    (:1095) with windows and maxima within 3e-6, means within 1e-7 and
+    the argmax equal (its bf16 x 3 lane DFT)."""
+    import jax.numpy as jnp
+
+    from pyaudiolocalization_tpu.ops import pallas_fft as pf
+    factors = FACTORS[0]
+    n = int(np.prod(factors))
+    fs_hz, total, out = 8000.0, 3600, 3000
+    rng = np.random.default_rng(4097)
+    base = np.zeros((1, total), np.float32)
+    base[0, :out] = rng.standard_normal(out)
+    d = rng.uniform(0.0, 0.03, (4, 3)).astype(np.float32)
+    g = rng.uniform(0.1, 1.0, (4, 3)).astype(np.float32)
+    want = np.asarray(pf.bfly_delay_sum(
+        jnp.asarray(base[0]), jnp.asarray(d), jnp.asarray(g), fs_hz, n, out,
+        interpret=True))
+    tau = d.astype(np.float64) * fs_hz
+    got = long_render_model(base.astype(np.float64), tau[None],
+                            g.astype(np.float64)[None], *factors)[0, :, :out]
+    scale = np.abs(got).max()
+    assert np.abs(got - want).max() < 5e-5 * scale
+    plain = cf.delay_sum_plain(torch.from_numpy(base), torch.from_numpy(
+        d * fs_hz)[None], torch.from_numpy(g)[None], n, out,
+        torch.ones(out), False)[0].numpy()
+    assert np.abs(plain - want).max() < 5e-5 * scale
+    x = rng.standard_normal((4, 3000)).astype(np.float32)
+    pi, pj = fs._pairs(4)
+    band, wq = (300.0, 3400.0), 2
+    jw, js = (np.asarray(a) for a in pf.bfly_gcc_windowed(
+        jnp.asarray(x), np.array(pi), np.array(pj), n, wq, band=band,
+        fs=fs_hz, interpret=True))
+    mask = cf.band_mask(n, band, fs_hz, dtype=torch.float64).numpy()
+    win, stats = long_gcc_window_model(x[None].astype(np.float64), pi, pj,
+                                       mask, wq, *factors)
+    pw, ps = (a.numpy() for a in cf.gcc_windowed_plain(
+        torch.from_numpy(x), pi, pj, n, wq, cf.band_mask(n, band, fs_hz)))
+    for gw, gs in ((win[0], stats[0]), (pw, ps)):
+        assert gw.shape == jw.shape and gs.shape == js.shape
+        assert np.abs(gw - jw).max() < 3e-6
+        assert np.array_equal(gs[..., 2], js[..., 2])
+        assert np.abs(gs[..., 1] - js[..., 1]).max() < 3e-6
+        assert np.abs(gs[..., 0] - js[..., 0]).max() < 1e-7
+
+
+def test_render_rows_long_and_window_maps_at_2_27():
+    """K3's mix row pass and K2's pass A' at 2^27 (128 x 128 x 8,192), by
+    index arithmetic alone: ``render_spec_rows_long`` takes
+    ``corr_rows_long``'s blocks, tasks and bytes (``pair_task`` over
+    strips of 2 rows, the rows written whole without the twiddle: its
+    maps are ``test_corr_rows_long_maps_at_2_27``'s) and gathers the bins
+    of packed mic row pm from the spectra of the scenes of mic rows 2pm
+    and 2pm + 1 (one scene of 4 mics: scene 0's), at offsets past a
+    32-bit int at 2^30 (the kernel's are size_t).  ``long_cols_window``'s
+    blocks (j1b, strip) take samples n2 (n1b j1a + j1b) + j2 in runs of 16
+    (pass A's load map, one to one); the window's 2w lags (w = 21 x 128,
+    the fast path's) come from 2 x w / 16 blocks, each lag once; a row's
+    65,536 blocks keep 65,536 partials of each pair (``_window_scratch``),
+    which the last block's 128 threads sum 512 each; 131,072 blocks a
+    row at 2^30, every sample index below 2^31."""
+    n = 1 << 27
+    plan = cf.long_plan(n)
+    n1a, n1b, S = plan.n1a, plan.n1b, plan.cols_a.strip
+    n1 = cf.fft_real_split(n)[0]
+    route = cf.render_route(n)
+    assert route == cf.gcc_route(n, 4) == cf.GccRoute(cf.ROUTE_LONG, n1, S, 2)
+    assert plan.corr_rows == (2, 8 * (8192 // 2 + 2 * cf.row_ld(2, 8192)))
+    mics = 4
+    for pm in (0, 1):
+        assert {(2 * pm) // mics, (2 * pm + 1) // mics} == {0}
+    # At 2^30 packed mic row 1 starts 2^31 floats in, and scene 2's
+    # spectrum 2 (2^29 + 1) complex points: past a 32-bit int.
+    m = 1 << 30
+    assert m * 2 >= 2 ** 31 and 2 * (m // 2 + 1) * 2 > 2 ** 31
+    w = 21 * 128
+    t = _long_a_maps(n1a, n1b, 8192, S)[0]
+    assert np.array_equal(np.bincount(t.ravel(), minlength=n),
+                          np.ones(n, np.int64))
+    assert (np.diff(t.reshape(t.shape[0], n1a, S), axis=-1) == 1).all()
+    at = np.where(t < w, w + t, np.where(t >= n - w, t - (n - w), -1))
+    hit = np.flatnonzero((at >= 0).any(axis=1))
+    assert len(hit) == 2 * w // S
+    assert np.array_equal(np.bincount(at[at >= 0], minlength=2 * w),
+                          np.ones(2 * w, int))
+    del t, at
+    keys, count, part = cf._window_scratch(3, n, route, "cpu")
+    assert (keys.numel(), count.numel(), part.numel()) == (6, 3,
+                                                           2 * 3 * 65536)
+    threads = n1a * S // 16
+    assert threads == 128 and 65536 // threads == 512
+    big = cf.long_plan(1 << 30)
+    assert big.n1b * 8192 // 16 == 131072 and big.n1a == 512
+    assert (1 << 30) - 1 < 2 ** 31
+
+
 def test_corr_rows_long_maps_at_2_27():
     """K9's and K1's back half at 2^27 (128 x 128 x 8,192), by index
     arithmetic alone: ``corr_rows_long``'s block b holds rows b and n1 - b
@@ -658,23 +1083,19 @@ def test_spectra_routes_keep_their_limit(bits):
     limit, ``FFT_SPLIT_MAX`` = 2^26: through the spectra at 2^24 (n1 =
     4,096, strips of 4), 2^25 (n1 = 4,096, 4 columns, 2 rows) and 2^26
     (n1 = 8,192, strips of 2) at every mic count (``gcc_route``,
-    ``render_route``, ``corr_schedule``, ``scene_stages``, the finish
-    spread over the card), the row pass at ``boot_rows``' strip and bytes
-    (the n2-point table in device memory at 2^25 and 2^26) and the column
-    pass at the split's column strip; at 2^27, where ``spectra_plan``
-    plans nothing, the radix-2 passes of K2, K3 and K5 and the
-    three-pass split of K9 and K1 (``gcc_all_route``)."""
+    ``render_route``, ``corr_schedule``, the finish spread over the card),
+    the row pass at ``boot_rows``' strip and bytes (the n2-point table in
+    device memory at 2^25 and 2^26) and the column pass at the split's
+    column strip; at 2^27, where ``spectra_plan`` plans nothing, the
+    three-pass split of all five, the finish spread there too."""
     n = 1 << bits
     assert not hasattr(cf, "SPECTRA_SPLIT_MAX")
     if bits == 27:
-        passes = cf.GccRoute(cf.ROUTE_PASSES, 0, 0, 0)
-        assert cf.render_route(n) == passes and cf.corr_schedule(n) == 16384
+        long = cf.GccRoute(cf.ROUTE_LONG, 16384, 16, 2)
+        assert cf.render_route(n) == long and cf.corr_schedule(n) == 16384
         for mics in (2, 3, 4, 8, 16, 64, 128):
-            assert cf.gcc_route(n, mics) == passes
-            assert cf.gcc_all_route(n, mics) == cf.GccRoute(
-                cf.ROUTE_LONG, 16384, 16, 2)
-            assert cf.scene_stages(n, mics) == (0, 0)
-        assert cf.finish_groups(n, 4) == 1
+            assert cf.gcc_route(n, mics) == long
+        assert cf.finish_groups(n, 4) == 128
         with pytest.raises(ValueError):
             cf.spectra_plan(n)
         return
@@ -683,8 +1104,7 @@ def test_spectra_routes_keep_their_limit(bits):
     assert cf.render_route(n) == spectra
     assert cf.corr_schedule(n) == n1
     for mics in (2, 3, 4, 8, 16, 64, 128):
-        assert cf.gcc_route(n, mics) == cf.gcc_all_route(n, mics) == spectra
-        assert cf.scene_stages(n, mics) == (n1, n1)
+        assert cf.gcc_route(n, mics) == spectra
     assert cf.finish_groups(n, 4) == 128
     for packed in (1, 2, 64):
         plan = cf.spectra_plan(n, packed)

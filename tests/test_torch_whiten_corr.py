@@ -19,6 +19,15 @@ from pyaudiolocalization_tpu_torch.ops import cuda_fft
 from pyaudiolocalization_tpu_torch.ops import fftutils as tfft
 from pyaudiolocalization_tpu_torch.ops import gccphat as tgcc
 
+
+@pytest.fixture(scope="module")
+def rng():
+    """This module's own generator, seeded as the conftest's session-wide
+    one: drawing from that one would move the inputs of every later test
+    file in the same worker (``test_pallas_fft.py``'s among them)."""
+    return np.random.default_rng(1234)
+
+
 FS = 8000.0
 
 

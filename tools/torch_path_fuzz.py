@@ -137,12 +137,12 @@ def sweep_spec(cfg: dict):
 
 
 def _stage(n1: int) -> str:
-    return {0: "passes", 1: "block"}.get(n1, f"split {n1}")
+    return "block" if n1 == 1 else f"split {n1}"
 
 
 def _gcc_stage(route) -> str:
     """A GCC or render route's label: "block", "split n1" (``gcc_rows``,
-    ``render_rows``), "spectra n1", "spectra block" or "passes"."""
+    ``render_rows``), "spectra n1", "spectra block" or "long"."""
     from pyaudiolocalization_tpu_torch.ops import cuda_fft as cf
     if route.kind == cf.ROUTE_ROWS:
         return f"split {route.n1}"
@@ -154,7 +154,7 @@ def _gcc_stage(route) -> str:
 def route(cfg: dict) -> Dict[str, tuple]:
     """{kernel: (nfft, n1, ..., schedule)} that ``cfg`` launches on the
     card, by the wrappers' own schedule rules (``cuda_fft.render_route``,
-    ``gcc_route``, K1's ``gcc_all_route``, ``_split_n1``,
+    ``gcc_route``, ``_split_n1``,
     ``corr_schedule``); the GCCs' tuples
     hold their route's kind after n1."""
     from pyaudiolocalization_tpu_torch.ops import cuda_fft as cf
@@ -179,8 +179,7 @@ def route(cfg: dict) -> Dict[str, tuple]:
                 nfft, rr.n1, gcc.n1, gcc.kind,
                 f"fused {_gcc_stage(rr)}/{_gcc_stage(gcc)}")
     else:
-        k1 = cf.gcc_all_route(nfft, m)
-        out["gcc_all_pairs"] = (nfft, k1.n1, k1.kind, _gcc_stage(k1))
+        out["gcc_all_pairs"] = (nfft, gcc.n1, gcc.kind, _gcc_stage(gcc))
     return out
 
 

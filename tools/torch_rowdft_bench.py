@@ -58,8 +58,9 @@ shapes from N to M points alone, and K1 and K9 only from N <= 2^26; K1 at the
 ``--gcc --long`` times only K1 and K9 (``ROUTE_GCC``) and K2, K3 and K5
 (``ROUTE_SCENES``) at the shapes where the GCC goes through the mic
 rows' spectra, and K3 at the shapes of its render through the base
-rows' spectra, to 2^26, and K1 at 4 mics x 2^27 and K9 at one pair at
-2^27 and 2^28 on the three-pass split (``--min-nfft N`` and
+rows' spectra, to 2^26, and on the three-pass split K1 at 4 mics x
+2^27, K9 at one pair at 2^27 and 2^28 and K2, K3 and K5 at the fast
+path's 4 mics at 2^27 and 2^28 (``--min-nfft N`` and
 ``--max-nfft M``: those from N to M points;
 ``--scene --long``: those of K2, K3 and K5 alone, then chip_smoke.py's
 simulated 20 s, 60 s and 120 s scenes on the fast path, ``long_scenes``,
@@ -242,16 +243,17 @@ GCC_SHAPES = {"api": (None, 4, 44100, 65536, BAND),
               "split26": (None, 4, 33000000, 1 << 26, None),
               "long27": (None, 4, LONG27, 1 << 27, None)}
 # --gcc --long: the shapes where K1's, K2's and K5's GCC goes through the
-# mic rows' spectra (``cuda_fft.gcc_route``; before, the radix-2 passes):
+# mic rows' spectra (``cuda_fft.gcc_route``; before, the radix-2 passes),
 # K1 at 11 mics x 65,536, 8 mics x 2^18, 4 mics of an 18 s recording at
 # 2^20, 128 x 16 mics at 4,096 and its shapes above 2^20 (GCC_SHAPES: to
 # 2^26, 4 and 8 mics at 2^23 and 2^25; on the three-pass split 4 mics at
 # 2^27), K9 at its shapes above 2^20 (CORR_SHAPES, to 2^26, and one pair
 # at 2^27 and 2^28 on the three-pass split); K2 (with K3 and K5 beside it,
-# ``SCENE_SHAPES``' layout) at the fast path's 4 mics at 2^20 to 2^26
-# (24,000,000 and 48,000,000 samples at 2^25 and 2^26), where K3's
-# render also goes
-# through the base rows' spectra with its finish spread over the card,
+# ``SCENE_SHAPES``' layout) at the fast path's 4 mics at 2^20 to 2^28
+# (24,000,000 and 48,000,000 samples at 2^25 and 2^26; 96,000,000 and
+# 100,000,000 at 2^27 and 2^28 on the three-pass split), where K3's
+# render also goes through the base rows' spectra with its finish spread
+# over the card,
 # 512 x 12 mics at 4,096 and one scene of 6 mics at 2^18; K3 alone at 2
 # scenes x 3 mics x 3 paths at 2^21 and 2^23 (mic rows packed across
 # scenes) and 64 scenes x 4 mics at 2^20 (rows that fill the card: one
@@ -266,6 +268,9 @@ ROUTE_SCENES = {"fast20": (1, 4, 1, 900000, 800000, 1 << 20, 21, True),
                 "fast24": (1, 4, 1, 12400000, 12000000, 1 << 24, 21, True),
                 "fast25": (1, 4, 1, 24800000, 24000000, 1 << 25, 21, True),
                 "fast26": (1, 4, 1, 49600000, 48000000, 1 << 26, 21, True),
+                "fast27": (1, 4, 1, 99200000, 96000000, 1 << 27, 21, True),
+                "fast28": (1, 4, 1, 104000000, 100000000, 1 << 28, 21,
+                           True),
                 "odd23": (2, 3, 3, 6200000, 6000000, 1 << 23, None, True),
                 "spectra_block": (512, 12, 1, 4094, 4000, 4096, 2, True),
                 "spectra18": (1, 6, 1, 250000, 200000, 1 << 18, 8, True),
@@ -288,7 +293,8 @@ GCC_TOL = 1e-6
 SPLIT_KERNELS = ("fft_real_cols", "fft_real_rows", "boot_rows", "boot_cols",
                  "long_cols")
 SPECTRA_KERNELS = ("corr_rows", "corr_cols", "window_cols",
-                   "render_spec_rows", "render_cols", "long_cols_corr")
+                   "render_spec_rows", "render_cols", "long_cols_corr",
+                   "long_cols_window", "long_cols_render")
 
 
 def time_ms(fn, reps: int, loops: int = 3):
@@ -705,6 +711,8 @@ def scene(reps: int = 5, log=print, shapes=None) -> dict:
                 lambda: cf.scene_windowed(*fused),
                 lambda: cf.scene_windowed_plain(*fused))
         for name, (call, twin) in cases.items():
+            if name != "gcc_windowed":
+                twin = cs.lean(cf, nfft, twin)
             got, ms = time_ms(call, reps)
             want, plain_ms = time_ms(twin, reps)
             got, want = ((got, want) if name == "delay_sum"
@@ -726,9 +734,15 @@ def scene(reps: int = 5, log=print, shapes=None) -> dict:
                 tol = SCENE_TOL[name] * (1.0 if finish else max(
                     float(want.abs().max()), 1.0))
                 if name == "gcc_windowed" and nfft > cf.STAGE_SPLIT_MAX:
-                    gap = float((want.double() - cf.gcc_windowed_plain(
-                        sigs.double(), pi, pj, nfft, wq,
-                        mask.double())[0]).abs().max())
+                    # Pair by pair above 2^26: the float64 twin of every
+                    # pair at once would take ~60 GB at 2^28.
+                    step = len(pi) if nfft <= cf.FFT_SPLIT_MAX else 1
+                    gap = max(float((want[..., q:q + step, :].double()
+                                     - cf.gcc_windowed_plain(
+                                         sigs.double(), pi[q:q + step],
+                                         pj[q:q + step], nfft, wq,
+                                         mask.double())[0]).abs().max())
+                              for q in range(0, len(pi), step))
                     tol += gap
                     log(f"{name} [{shape}]: max |float32 twin - float64 "
                         f"twin| {gap:.3e}, limit {tol:.3e}")
@@ -996,12 +1010,12 @@ def recording(card: str, min_nfft: int = 0) -> None:
     under ``max_expected_delay=None``, 2^22, a warm call each, the device
     time by kernel), ``recording23`` (4 x 60 s at 44.1 kHz under
     ``max_expected_delay=None``: K4a, K6 and K1 at 2^23), ``recording25``
-    (4 x 200 s: K4a, K6 and K1 at 2^25), ``recording27`` (4 x 800 s: K4a
-    and K6 at 2^27, K1 on its passes) and ``spectra_recordings`` (16 s on
-    the full core at 2^20; 16, 30, 60 and 120 s on the fast path at 2^20
-    to 2^23), those whose nfft reaches ``min_nfft``, logged beside
-    ``card``.  A tree whose K1, K2, K4a or K6 still runs its radix-2
-    passes there logs them (``hold_split=False``, ``hold_spectra=False``).
+    (4 x 200 s: K4a, K6 and K1 at 2^25), ``recording27`` (4 x 800 s: K4a,
+    K6 and K1 at 2^27) and ``spectra_recordings`` (16 s on the full core
+    at 2^20; 16, 30, 60 and 120 s on the fast path at 2^20 to 2^23), those
+    whose nfft reaches ``min_nfft``, logged beside
+    ``card``.  A tree that runs kernels outside those routes there logs
+    them (``hold_split=False``, ``hold_spectra=False``).
     To A/B a tree whose ``chip_smoke.py`` lacks a step, run this file and
     ``chip_smoke.py`` from the newer tree in a copy of the older one."""
     smoke = _smoke()
@@ -1020,9 +1034,8 @@ def simulations(card: str) -> None:
     """``chip_smoke.long_scenes`` of this tree (the simulated 20 s, 60 s and
     120 s scenes on the fast path, K3's render at 2^20, 2^22 and 2^23: wall
     time cold and warm, device time by kernel, the TDOAs against the
-    CPU's), logged
-    beside ``card``; a tree whose K3 still renders on the radix-2 passes
-    there logs them (``hold_spectra=False``)."""
+    CPU's), logged beside ``card``; a tree that runs kernels outside K3's
+    and K2's routes there logs them (``hold_spectra=False``)."""
     smoke = _smoke()
     smoke.CARD[0] = card
     smoke.long_scenes(cf, torch, {}, hold_spectra=False)
