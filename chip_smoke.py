@@ -14,13 +14,13 @@ in twelve phases:
    at no_gate's 131,072, the single pair's two rows and 1024 rows against
    ``torch.fft.rfft``, with device times, two rows of a 23.7 s
    recording at 2^21 and one row at 2^22 on the split with strips of 8,
-   2 device kernels a call, one row at 2^23 (2,048 x 4,096: strips of 8
-   columns and 4 rows), 2^24 (4,096 x 4,096: 4 and 4), 2^25 and 2^26
-   (4,096 x 8,192 and 8,192 x 8,192) on the split too, 2, and one row at
-   2^27, 2^28 and 2^30 on the three-pass split, 3; K4b also at no_gate's
+   2 device kernels a call, one row at 2^23 on the split too, 2, and one
+   row at 2^24 to 2^28 and 2^30 on the three-pass split, 3 (from 2^17 a
+   single row's half-length transform, ``cuda_fft.half_plan``, each case
+   with its ratio to ``torch.fft.rfft``); K4b also at no_gate's
    131,072 and two rows, with its device time and kernels per call, and
    above 2^20 at 64 and 1,000 rows of the 23.7 s pair at 2^21 and 3 rows
-   at 2^22 to 2^26, 3 device kernels a call, and 3 rows at 2^27 and 2^28
+   at 2^22 to 2^24, 3 device kernels a call, and 3 rows at 2^25 to 2^28
    and 2 at 2^30 on the three-pass split, 5; K6 also at 131,072 and at
    K4b's shapes above 2^20 and at 300 draws at 2^24 (two
    launches under the scratch's byte cap), each shape equal to K4b on the
@@ -378,12 +378,10 @@ LONG_DRAWS = 64
 # GCCs' largest split in the columns (2,048 x 2,048: 8 columns and 8 rows
 # a strip), at the splits past it (2,048 x 4,096: 8 columns, 4 rows;
 # 4,096 x 4,096: 4 and 4; a 47.5 s and a 95 s recording at 44.1 kHz under
-# ``max_expected_delay=None``), past 2^24 (every transforming kernel's
-# split of 4,096 x 8,192, 4 columns and 2 rows, and 8,192 x 8,192, 2 and
-# 2, the n2-point table read from device memory: a 190 s and a 375 s
-# recording) and past 2^26 (the three-pass split of K4a, K4b, K6, K9 and
-# K1: a 1,520 s, a 3,039 s and a 9,070 s recording, 3 device kernels a
-# call of K4a and K9, 5 of K4b and K6, 6 of K1, ``LONG_KERNELS``); K6's
+# ``max_expected_delay=None``) and past 2^24 (the three-pass split of
+# 2,048-point rows of K4a, K4b, K6, K9 and K1: a 190 s, a 375 s, a 1,520
+# s, a 3,039 s and a 9,070 s recording, 3 device kernels a call of K4a and
+# K9, 5 of K4b and K6, 6 of K1, ``LONG_KERNELS``); K6's
 # draws at 2^24 that take two launches under the byte cap.  The 2^27
 # cases of every kernel draw from the stream and take the shapes that
 # their radix-2 passes' cases did, so every later case of that stream
@@ -923,11 +921,10 @@ def kernel_phase(cf, torch):
     # full core) and 8 mics at 2^18; past 2^22 a 95 s recording's 4 and 8
     # mics at 2^23 (2,048 x 4,096: strips of 8 columns, 4 rows) and a 190
     # s recording's 4 at 2^24 (4,096 x 4,096: 4 and 4) under
-    # ``max_expected_delay=None``; past 2^24 a 190 s recording's 4 and 8
-    # mics at 2^25 (4,096 x 8,192: 4 columns, 2 rows) and a 375 s
-    # recording's 4 at 2^26 (8,192 x 8,192: 2 and 2), the n2-point table
-    # read from device memory; past the split a 1,519 s recording's 4 at
-    # 2^27 and a 3,039 s one's at 2^28 on the three-pass split (6 device
+    # ``max_expected_delay=None``; past the split a 190 s recording's 4
+    # and 8 mics at 2^25, a 375 s recording's 4 at 2^26, a 1,519 s
+    # recording's 4 at 2^27 and a 3,039 s one's at 2^28 on the three-pass
+    # split (6 device
     # kernels a call: K4a's three into the spectra, ``corr_rows_long``, B'
     # and ``long_cols_corr``; at 2^28 the float64 twin pair by pair, whole
     # it would pass the card's 80 GB).  Through them in one block (2
@@ -1071,14 +1068,11 @@ def kernel_phase(cf, torch):
     # time, which a single row's host time between calls dominates.
     # "long": the single pair's two rows of a 23.7 s recording at 2^21 and
     # "long22" one row at 2^22, on the split with strips of 8 columns (2
-    # device kernels a call); "split23" and "split24" one row at 2^23 and
-    # 2^24 on K4a's split past K9's (the long side in the rows: 2,048 x
-    # 4,096 and 4,096 x 4,096, 2 device kernels); "split25" and "split26"
-    # one row at 2^25 and 2^26 (4,096 x 8,192 and 8,192 x 8,192, the
-    # n2-point table read from device memory, 2 device kernels); "long27",
-    # "long28" and "long30" one row at 2^27, 2^28 and 2^30, past the split,
-    # on the three-pass split (3 device kernels), each table's host build
-    # timed.
+    # device kernels a call); "split23" to "split26", "long27", "long28"
+    # and "long30" one row at 2^23 to 2^28 and 2^30.  Every single row from
+    # no_gate's 131,072 on is one half-length transform (``half_plan``):
+    # 2^16 to 2^22 points on the split (2 device kernels), from 2^23 on the
+    # three-pass split (3), each table's host build timed past the split.
     for tag, (rows_n, length, nfft) in {
             "main": (1, N, NFFT), "no_gate": (1, N, 2 * NFFT),
             "single_pair": (2, N, NFFT), "rows": (1024, NFFT, NFFT),
@@ -1094,7 +1088,8 @@ def kernel_phase(cf, torch):
             table_note(cf, nfft, x.device)
         res = compare(
             f"fft_real[{tag}] rows={rows_n} len={length} nfft={nfft}"
-            f"{split_note(cf, nfft, rows_n)}",
+            f"{split_note(cf, nfft, rows_n)}"
+            f"{moved_note(cf, 'fft_real', nfft, rows_n)}",
             lambda: cf.fft_real(x, nfft),
             lambda: cf.fft_real_plain(x, nfft), tol=5e-6,
             reps=20 if rows_n < 1024 else 5,
@@ -1102,15 +1097,15 @@ def kernel_phase(cf, torch):
                         rows_n * _rfft_ops(nfft)),
             scale_by_max=True,
             library_fn=lambda: torch.fft.rfft(x, n=nfft))
-        log(f"fft_real[{tag}] device time per call: kernel "
-            f"{device_ms(lambda: cf.fft_real(x, nfft))['total']:.4f} ms, "
-            f"torch.fft.rfft "
-            f"{device_ms(lambda: torch.fft.rfft(x, n=nfft))['total']:.4f} ms")
+        k_dev = device_ms(lambda: cf.fft_real(x, nfft))['total']
+        r_dev = device_ms(lambda: torch.fft.rfft(x, n=nfft))['total']
+        log(f"fft_real[{tag}] device time per call: kernel {k_dev:.4f} ms, "
+            f"torch.fft.rfft {r_dev:.4f} ms ({k_dev / r_dev:.2f}x; CUDA "
+            f"events {res[1] / res[3]:.2f}x) {card_note()}")
         if tag.startswith(("long", "split")):
             log_device(f"fft_real[{tag}]", lambda: cf.fft_real(x, nfft),
-                       kernels=LONG_KERNELS["fft_real"]
-                       if nfft > cf.FFT_SPLIT_MAX else 2,
-                       allowed=route_kernels(cf, "fft_real", nfft))
+                       kernels=k4a_kernels(cf, nfft, rows_n),
+                       allowed=route_kernels(cf, "fft_real", nfft, rows=rows_n))
         if tag == "main":
             results["fft_real"] = res
         del x
@@ -1119,7 +1114,7 @@ def kernel_phase(cf, torch):
         """Device kernels a call of K4b or K6 at a case above 2^20: three
         on the split (the column pass, the row pass, the column pass with
         the maxima), six where the draws take two launches under the
-        scratch's byte cap, five on the three-pass split above 2^26
+        scratch's byte cap, five on the three-pass split above 2^24
         (``LONG_KERNELS``); None below."""
         if nfft > cf.FFT_SPLIT_MAX:
             return LONG_KERNELS[name]
@@ -1131,13 +1126,12 @@ def kernel_phase(cf, torch):
     # and no_gate's 131,072 (three launches over the four-step split);
     # edges: two rows (16-row strips) and 999 rows at 4,096 (one block).
     # Above 2^20: the 23.7 s pair's null at phase 10's 64 draws and at the
-    # default 1,000 (2,048 x 1,024: strips of 8 columns, 16 rows), 3 rows
-    # at 2^22 (8 columns, 8 rows), at 2^23 (8 columns, 4 rows), at 2^24
-    # (4 and 4), at 2^25 (4 and 2) and at 2^26 (2 and 2), 3 device kernels
-    # a call each, and 3 rows at 2^27 and 2^28 and 2 at 2^30 on the
-    # three-pass split, 5; their twins run in chunks of rows (the bench
-    # tool's ``twin_rows``; up to 2^16 one call, one row a call from
-    # 2^28).
+    # default 1,000 (2,048 x 1,024: strips of 8 columns, 8 rows), 3 rows
+    # at 2^22 (8 columns, 4 rows), at 2^23 (8 columns, 2 rows) and at 2^24
+    # (4 and 2), 3 device kernels a call each, and 3 rows at 2^25 to 2^28
+    # and 2 at 2^30 on the three-pass split, 5; their twins run in chunks
+    # of rows (the bench tool's ``twin_rows``; up to 2^16 one call, one
+    # row a call from 2^28).
     # The device time per call and the device kernels a call runs
     # (torch.profiler) are logged beside the CUDA-event time.
     for tag, (rows_n, length, nfft) in {
@@ -1157,7 +1151,8 @@ def kernel_phase(cf, torch):
         s1 = cf.fft_real_plain(randn(1, length), nfft)[0].contiguous()
         res = compare(
             f"bootstrap_peaks[{tag}] rows={rows_n} len={length} nfft={nfft}"
-            f"{split_note(cf, nfft, rows_n)}",
+            f"{split_note(cf, nfft, rows_n)}"
+            f"{moved_note(cf, 'bootstrap_peaks', nfft, rows_n)}",
             lambda: cf.bootstrap_peaks(s1, rows, nfft),
             lambda: twin_rows(lambda r: cf.bootstrap_peaks_plain(s1, r, nfft),
                               rows, nfft),
@@ -1196,7 +1191,8 @@ def kernel_phase(cf, torch):
         seeds = randint(rows_n, 2)
         res = compare(
             f"noise_bootstrap_peaks[{tag}] draws={rows_n} n_samp={n_samp} "
-            f"nfft={nfft}{split_note(cf, nfft, rows_n)}",
+            f"nfft={nfft}{split_note(cf, nfft, rows_n)}"
+            f"{moved_note(cf, 'noise_bootstrap_peaks', nfft, rows_n)}",
             lambda: cf.noise_bootstrap_peaks(s1, seeds, n_samp, nfft),
             lambda: twin_rows(lambda sd: cf.noise_bootstrap_peaks_plain(
                 s1, sd, n_samp, nfft), seeds, nfft),
@@ -1226,7 +1222,7 @@ def kernel_phase(cf, torch):
     # twiddle tables of 2^28 and 2^30 (1 and 4 GiB) in ``_twiddles``'
     # cache: give them back, so that the cases and phases that follow
     # start as they did before.
-    cf._twiddles.cache_clear()
+    cf._table.cache_clear()
     torch.cuda.empty_cache()
 
     # K7: PHAT whitening.  Main: the single pair at the exact length 88,199
@@ -1313,7 +1309,7 @@ def kernel_phase(cf, torch):
         del a, b
     # The tables of 2^28 and 2^30 (1 and 4 GiB) and the cases' buffers:
     # give them back before K5's cases.
-    cf._twiddles.cache_clear()
+    cf._table.cache_clear()
     torch.cuda.empty_cache()
 
     # K5: the whole scene.  Main: the sweep's 512 scenes; the api's scene
@@ -1414,19 +1410,24 @@ def split_note(cf, nfft, rows):
     """" strips c/r/b": the strips of the split's column passes (K4a's pass
     1, K4b's and K6's passes 1 and 3), K4a's pass 2 and K4b's and K6's row
     pass at nfft for ``rows`` rows (``cuda_fft.split_plan``; no launch
-    takes a thread-block cluster); above 2^26 the three-pass split's
+    takes a thread-block cluster); above 2^24 the three-pass split's
     n1a x n1b x n2 and strips (``cuda_fft.long_plan``); "" in one
-    block."""
+    block; with " half m n1 c/r n1a" K4a's odd row's half-length
+    transform (``cuda_fft.half_plan``) from ``HALF_MIN``."""
+    half = ""
+    if rows % 2 and nfft >= cf.HALF_MIN:
+        h = cf.half_plan(nfft)
+        half = f" half {h.m} n1={h.n1} {h.cols}/{h.rows} n1a={h.n1a}"
     if nfft <= cf.FFT_REAL_ONE_BLOCK:
-        return ""
+        return half
     if nfft > cf.FFT_SPLIT_MAX:
         plan = cf.long_plan(nfft, (rows + 1) // 2)
         return (f" {plan.n1a} x {plan.n1b} x {nfft // plan.n1a // plan.n1b}"
                 f" strips {plan.cols_a.strip}/{plan.rows.strip}/"
-                f"{plan.boot_rows.strip}")
+                f"{plan.boot_rows.strip}{half}")
     plan = cf.split_plan(nfft, (rows + 1) // 2)
     return (f" strips {plan.cols.strip}/{plan.rows.strip}/"
-            f"{plan.boot_rows.strip}")
+            f"{plan.boot_rows.strip}{half}")
 
 
 def table_note(cf, nfft, device):
@@ -1470,24 +1471,55 @@ def render_note(cf, nfft, rows):
             f"{cf.finish_groups(nfft, rows)}")
 
 
-def route_kernels(cf, name, nfft, mics=4):
+def route_kernels(cf, name, nfft, mics=4, rows=2):
     """The port's kernels that a call of wrapper ``name`` may run at nfft
     with ``mics`` mics a scene (``RENDER_KERNELS``, ``GCC_KERNELS``,
     ``SCHEDULE_KERNELS``): K3 its render route's and the finish, K1 and
     K2 their GCC route's, K5 both, K4a, K4b, K6 and K9 those of their
-    schedule (K6's are K4b's)."""
+    schedule (K6's are K4b's); K4a over ``rows`` rows also those of its
+    odd last row's half-length transform (``cuda_fft.half_plan``)."""
     name = {"noise_bootstrap_peaks": "bootstrap_peaks"}.get(name, name)
     if name in SCHEDULE_KERNELS:
         n1 = cf._split_n1(nfft)
         step = ("block" if n1 == 1 else "long" if nfft > cf.FFT_SPLIT_MAX
                 else "split")
-        return SCHEDULE_KERNELS[name][step]
+        names = SCHEDULE_KERNELS[name][step]
+        if name == "fft_real" and rows % 2 and nfft >= cf.HALF_MIN:
+            names += SCHEDULE_KERNELS[name][
+                "long" if cf.half_plan(nfft).n1a else "split"]
+        return names
     route = cf.ROUTE_NAMES[cf.render_route(nfft).kind]
     render = RENDER_KERNELS[route] + (FINISH_KERNELS if route != "block"
                                       else ())
     gcc = GCC_KERNELS[cf.ROUTE_NAMES[cf.gcc_route(nfft, mics).kind]]
     return {"delay_sum": render, "scene_windowed": render + gcc}.get(name,
                                                                      gcc)
+
+
+def k4a_kernels(cf, nfft, rows):
+    """Device kernels a call of K4a over ``rows`` rows at nfft from 2^21
+    runs (one launch of its rows): 2 on the split, 3 on the three-pass
+    split; one row from ``HALF_MIN`` its half-length transform's
+    (``cuda_fft.half_plan``: 3 where it takes the three-pass split)."""
+    if rows == 1 and nfft >= cf.HALF_MIN:
+        return 3 if cf.half_plan(nfft).n1a else 2
+    return LONG_KERNELS["fft_real"] if nfft > cf.FFT_SPLIT_MAX else 2
+
+
+def moved_note(cf, name, nfft, rows):
+    """" [bits moved: ...]" where a case's kernel computes other float32
+    bits than the port's kernels before the half-length transform and the
+    three-pass split of 2,048-point rows with ``Tw3``'s twiddles (each
+    held to its twin all the same): K4a's odd row from ``HALF_MIN`` and
+    every transforming kernel above ``FFT_SPLIT_MAX``; "" where its bits
+    are as before.  ``tools/torch_bits_ab.py`` checks the rule against a
+    parent's checkout on the card."""
+    why = []
+    if name == "fft_real" and rows % 2 and nfft >= cf.HALF_MIN:
+        why.append("half-length transform")
+    if nfft > cf.FFT_SPLIT_MAX:
+        why.append("three-pass split of 2,048-point rows")
+    return f" [bits moved: {', '.join(why)}]" if why else ""
 
 
 def port_kernels():

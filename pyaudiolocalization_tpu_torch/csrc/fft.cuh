@@ -22,10 +22,11 @@
 // a one-strip mix row pass and the column pass; up to 1024 x 1024 with
 // strips of kStrip sequences, up to 2048 x 2048 with strips of 8 where 16
 // would pass kElems * 1024 points, up to 4096 x 4096, the long side in the
-// rows (2048 x 4096 at 2^23), with strips of 4 at 4,096, and up to 8192 x
-// 8192 with strips of 2 at 8,192); above 2^26, to 2^30, every transforming
-// kernel splits n1 again, n1 = n1a * n1b, two column passes of 16 columns
-// each way (the three-pass split, `long_forward` in kernels.cu).  The
+// rows (2048 x 4096 at 2^23), with strips of 4 at 4,096); above 2^24, to
+// 2^30, every
+// transforming kernel takes rows of 2,048 points and splits n1 again, n1 =
+// n1a * n1b, two column passes of 16 columns each way (the three-pass
+// split, `long_forward` in kernels.cu).  The
 // length-n2 rows of a (n2, 128) plane are one (K10b, and K10a with its
 // radix-16 stages on the tensor cores), and so are the 128-point lane
 // DFTs of 32 of its rows (K10c).  Up to 4096 points one block holds a

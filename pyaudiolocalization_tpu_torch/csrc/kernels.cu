@@ -36,10 +36,10 @@ constexpr int kRowThreads = 1024;
 // The GCC routes of K1, K2 and K5 (``cuda_fft.gcc_route`` picks one for
 // (nfft, mics), the same for the three): one block a scene, the split with
 // `gcc_rows`, the split through the mic rows' spectra, one block a packed
-// cross row through the spectra, and above 2^26 the three-pass split
+// cross row through the spectra, and above 2^24 the three-pass split
 // through the spectra.  K3's render stage, K5's too, takes `render_block`,
 // the split with `render_rows`, the split through the base rows' spectra
-// and above 2^26 the three-pass split through them
+// and above 2^24 the three-pass split through them
 // (``cuda_fft.render_route``).
 enum GccRoute {
   kRouteBlock = 1,
@@ -55,6 +55,16 @@ enum GccRoute {
 __device__ __forceinline__ float2 split_bin(float2 zk, float2 zm, int odd) {
   if (!odd) return make_float2(0.5f * (zk.x + zm.x), 0.5f * (zk.y - zm.y));
   return make_float2(0.5f * (zk.y + zm.y), -0.5f * (zk.x - zm.x));
+}
+
+// Bin k of a real row x's spectrum from the half-length transform Z of
+// z[t] = x[2t] + i*x[2t+1] (m points): X[k] = E[k] + W_2m^k O[k], E and O
+// the spectra of the even and odd samples (`split_bin` of zk = Z[k] and zm
+// = Z[(m - k) mod m]), w = W_2m^k; exactly real at k = 0 (w = 1).
+__device__ __forceinline__ float2 half_bin(float2 zk, float2 zm, float2 w) {
+  const float2 e = split_bin(zk, zm, 0);
+  const float2 o = cmul(w, split_bin(zk, zm, 1));
+  return make_float2(e.x + o.x, e.y + o.y);
 }
 
 // Writes bins k and n-k of the packed spectrum ya + i*yb of two Hermitian
@@ -204,42 +214,22 @@ cudaError_t with_strip(int s2, Launch launch) {
   return cudaErrorInvalidValue;
 }
 
-// The largest n2 whose n2-point table `hi` the split kernels stage in
-// shared memory (every shape up to 2^24); above, at n2 = 8,192 (2^25 and
-// 2^26), the split's row passes and its first column pass read it from
-// device memory (`HiTable`), so that their strips fit
-// (``cuda_fft.split_hi_points``).
-constexpr int kHiSharedMax = 4096;
-
-// Calls launch(std::integral_constant<int, S>(), std::bool_constant<kHi>())
-// for a strip of the split at n2, one rule for every split kernel: the
-// strips of its column passes (K4a's, K4b's, K6's and the spectra
-// routes') and of its one-strip row passes (K4b's and K6's `boot_rows`,
-// the spectra routes' `corr_rows` and `render_spec_rows`).  Up to
-// kHiSharedMax, 16 (kStrip) up to n1 (n2) = 1,024, 8 at 2,048 and 4 at
-// 4,096 with kHi = false, so that every shape up to 2^24 builds the
-// kernels it had; at n2 = 8,192, strips of 2 up to kWidest (4 for the
-// column passes at n1 = 4,096, 2 at 8,192; 2 for the row passes) with
-// kHi = true (``cuda_fft.split_strips``, ``spectra_plan``).  The passes
-// that hold no n2-point table ignore kHi.
-template <int kWidest = 4, typename Launch>
-cudaError_t with_split_strip(int strip, int n2, Launch launch) {
-  if (n2 <= kHiSharedMax) {
-    if (strip == palt::kStrip)
-      return launch(std::integral_constant<int, palt::kStrip>(),
-                    std::false_type());
-    if (strip == 8)
-      return launch(std::integral_constant<int, 8>(), std::false_type());
-    if (strip == 4)
-      return launch(std::integral_constant<int, 4>(), std::false_type());
-    return cudaErrorInvalidValue;
+// Calls launch(std::integral_constant<int, S>()) for a strip of S = 16
+// (kStrip), 8, 4 or, from kNarrowest = 2, 2 sequences of the split, one
+// rule for every split kernel: the strips of its column passes (K4a's,
+// K4b's, K6's and the spectra routes'; 16, 8 or 4, at least a 32-byte
+// sector of each row) and of its one-strip row passes (K4b's and K6's
+// `boot_rows`, the spectra routes' `corr_rows` and `render_spec_rows`;
+// down to 2) (``cuda_fft.split_strips``, ``spectra_plan``).
+template <int kNarrowest = 4, typename Launch>
+cudaError_t with_split_strip(int strip, Launch launch) {
+  if (strip == palt::kStrip)
+    return launch(std::integral_constant<int, palt::kStrip>());
+  if (strip == 8) return launch(std::integral_constant<int, 8>());
+  if (strip == 4) return launch(std::integral_constant<int, 4>());
+  if constexpr (kNarrowest <= 2) {
+    if (strip == 2) return launch(std::integral_constant<int, 2>());
   }
-  if constexpr (kWidest >= 4) {
-    if (strip == 4)
-      return launch(std::integral_constant<int, 4>(), std::true_type());
-  }
-  if (strip == 2)
-    return launch(std::integral_constant<int, 2>(), std::true_type());
   return cudaErrorInvalidValue;
 }
 
@@ -270,19 +260,18 @@ cudaError_t with_split_strip(int strip, int n2, Launch launch) {
 // the rows, n1 <= n2: 2048 x 4096 at 2^23 keeps the 8-column strips (184
 // KB) and takes pass-2 strips of 4 rows (2 rows k1 and their partners),
 // 4096 x 4096 at 2^24 strips of 4 columns (208 KB; one 32-byte sector a
-// row) and of 4 rows.  At 2^25 (4,096 x 8,192) and 2^26 (8,192 x 8,192)
-// the column strips hold 4 and 2 columns and pass 2's 2 rows (one row k1
-// and its partner), and the column pass keeps only lo in shared memory,
-// reading hi from device memory (`HiTable`: 180,224 and 229,376 bytes a
-// block; with hi 245,760 and 294,912, past the 232,448 a block may
-// take).  Nothing here needs n1 >= n2: the twiddle e = j2*k1
-// < n splits as W_n2^{e / n1} W_n^{e mod n1} at any n1, the sub-twiddles
+// row) and of 4 rows.  Past 2^24 a column strip and its tables would not
+// fit a block beside 4 columns (2 at 2^26, half a sector of each row):
+// the three-pass split takes over.  Nothing here needs n1 >= n2: the
+// twiddle e = j2*k1 < n splits as W_n2^{e / n1} W_n^{e mod n1} at any n1,
+// the sub-twiddles
 // of either side are every (n/L)-th entry of the table, and the partner
 // rows n1 - k1 (row n1/2 in the slot of row 0's) are rows of n1.  Bound:
 // device memory, 32 bytes a point of the packed rows over the split (pass
 // 1 writes Y, pass 2 reads it: 16 each way) besides the rows' read and the
-// spectra's write.  Above 2^26 pass 1 is two passes, A and B, of the
-// three-pass split (`long_forward`), and pass 2 follows as at 2^26.
+// spectra's write.  Above 2^24 pass 1 is two passes, A and B, of the
+// three-pass split (`long_forward`), and pass 2 follows at n2 = 2,048 in
+// strips of 8 rows (runs of 4 bins).
 
 // The sequence stride (in float2) of a strip of S rows of n2 points in
 // K4a's pass 2 and K4b's and K6's row pass: n2 + 16 / S up to 16 rows,
@@ -403,11 +392,10 @@ __device__ __forceinline__ float2 split_twiddle(const float2* lo,
   return cmul(hi[e >> (__ffs(n1) - 1)], lo[e & (n1 - 1)]);
 }
 
-// hi[a] = W_n2^a read where n2 > kHiSharedMax (2^25, 2^26) from the
-// contiguous n2-point half table after the n-point and n1-point ones
-// (``cuda_fft._twiddles``) through the read-only path: the floats that
-// `stage_split_tables_of` would stage, with its sign flip for a >= n2/2,
-// so `split_twiddle` multiplies the same two table entries once.
+// t[a] = W_L^a, a < L, read through the read-only path from the L-point
+// half table t2 (h2 = L/2 entries), with the sign flip for a >= L/2: pass
+// A's W_n1 on the three-pass split, whose n1 points do not fit beside its
+// strip in shared memory and whose entries the threads of a warp share.
 struct HiTable {
   const float2* t2;
   int h2;
@@ -417,28 +405,6 @@ struct HiTable {
   }
 };
 
-__device__ __forceinline__ float2 split_twiddle(const float2* lo,
-                                                const HiTable& hi, int e,
-                                                int n1) {
-  return cmul(hi[e >> (__ffs(n1) - 1)], lo[e & (n1 - 1)]);
-}
-
-// The split's tables where hi stays in device memory (kHi): lo[r] = W_n^r
-// (r < n1) staged from the n-point table, as `stage_split_tables_of` does
-// above 2^20, and the `HiTable`; else `stage_split_tables_of<kWhere>` and
-// hi in shared memory, as before.  Returns what `split_twiddle` reads hi
-// from.
-template <bool kHi, int kWhere>
-__device__ __forceinline__ auto stage_split_lo_hi(
-    float2* lo, float2* hi, const float2* __restrict__ tw, int n1, int n2) {
-  if constexpr (kHi) {
-    for (int r = threadIdx.x; r < n1; r += blockDim.x) lo[r] = tw[r];
-    return HiTable{tw + ((size_t)n1 * n2 >> 1) + (n1 >> 1), n2 >> 1};
-  } else {
-    stage_split_tables_of<kWhere>(lo, hi, tw, n1, n2);
-    return static_cast<const float2*>(hi);
-  }
-}
 
 // Loaders of the forward passes: `load.row(c)` gives point t (< n) of
 // packed row c, rows 2c and 2c+1 as its real and imaginary parts, zero
@@ -500,6 +466,22 @@ struct NoiseLoad {
   }
 };
 
+// K4a's odd last row as its half-length complex row: point t (< n/2) is
+// x[2t] + i*x[2t + 1], zero from the row's length on (`fft_real_half`).
+struct HalfLoad {
+  const float* x;
+  int len;
+  struct Row {
+    const float* x;
+    int len;
+    __device__ __forceinline__ float2 operator()(int t) const {
+      const int j = 2 * t;
+      return make_float2(j < len ? x[j] : 0.0f, j + 1 < len ? x[j + 1] : 0.0f);
+    }
+  };
+  __device__ __forceinline__ Row row(int) const { return {x, len}; }
+};
+
 // Rows already packed two to a complex row z (ceil(rows/2), n), zero-padded
 // to n (K5's finalized signals, written in place by `render_finalize`).
 // May alias the pass's output: a column pass reads and writes one strip.
@@ -520,14 +502,13 @@ struct PackedLoad {
   }
 };
 
-// Pass 1.  Grid (n2 / S column strips, packed rows), S = kStrip (16), 8,
-// 4 or 2 columns a strip (n1 * S <= kElems * 1024).  The twiddle W_n^{j2
+// Pass 1.  Grid (n2 / S column strips, packed rows), S = kStrip (16), 8
+// or 4 columns a strip (n1 * S <= kElems * 1024).  The twiddle W_n^{j2
 // k1} from the two tables of `stage_split_tables_of` (above 2^20 the
 // n1-point sub-twiddles and the n2-point table read contiguously from the
-// half tables after the n-point one; with kHi, at n2 = 8,192, hi read
-// from device memory, `stage_split_lo_hi`).  The block writes the strip
-// it read, so y may be the loader's own buffer.
-template <class Load, int S, bool kHi = false>
+// half tables after the n-point one).  The block writes the strip it
+// read, so y may be the loader's own buffer.
+template <class Load, int S>
 __global__ void __launch_bounds__(1024)
 fft_real_cols(Load load, int n1, int n2, const float2* __restrict__ tw,
               float2* y) {
@@ -535,7 +516,7 @@ fft_real_cols(Load load, int n1, int n2, const float2* __restrict__ tw,
   float2* stw = palt::fft_shared();
   float2* lo = stw + (n1 >> 1);
   float2* hi = lo + n1;
-  float2* buf = kHi ? hi : hi + n2;
+  float2* buf = hi + n2;
   const int n = n1 * n2;
   const int c = blockIdx.y;
   const int c0 = blockIdx.x * S;
@@ -543,7 +524,7 @@ fft_real_cols(Load load, int n1, int n2, const float2* __restrict__ tw,
   // Column strips below 16 occur only above 2^20, of 16 only up to it.
   constexpr int kWhere = S < palt::kStrip ? 1 : 0;
   stage_split_twiddles<kWhere>(stw, tw, n1, n2, false);
-  const auto hv = stage_split_lo_hi<kHi, kWhere>(lo, hi, tw, n1, n2);
+  stage_split_tables_of<kWhere>(lo, hi, tw, n1, n2);
   const int total = n1 * S;
   float2 v[kElems];
 #pragma unroll
@@ -563,21 +544,19 @@ fft_real_cols(Load load, int n1, int n2, const float2* __restrict__ tw,
     const int k1 = idx / S;
     const int j2 = c0 + idx % S;
     yc[(size_t)k1 * n2 + j2] =
-        cmul(buf[idx], split_twiddle(lo, hv, j2 * k1, n1));
+        cmul(buf[idx], split_twiddle(lo, hi, j2 * k1, n1));
   }
 }
 
-// Pass 1 over `packed` rows of load into y, strips of S columns; kHi: hi
-// read from device memory (n2 > kHiSharedMax), not staged.
-template <int S = palt::kStrip, bool kHi = false, class Load>
+// Pass 1 over `packed` rows of load into y, strips of S columns.
+template <int S = palt::kStrip, class Load>
 cudaError_t cols_launch(Load load, int packed, int n1, int n2,
                         const float2* tw, float2* y, cudaStream_t s) {
-  const int smem =
-      (n1 / 2 + n1 + (kHi ? 0 : n2) + n1 * S) * (int)sizeof(float2);
-  const cudaError_t err = palt::allow_smem<fft_real_cols<Load, S, kHi>>();
+  const int smem = (n1 / 2 + n1 + n2 + n1 * S) * (int)sizeof(float2);
+  const cudaError_t err = palt::allow_smem<fft_real_cols<Load, S>>();
   if (err != cudaSuccess) return err;
-  fft_real_cols<Load, S, kHi><<<dim3(n2 / S, packed),
-                                palt::fft_threads(n1, S), smem, s>>>(
+  fft_real_cols<Load, S><<<dim3(n2 / S, packed), palt::fft_threads(n1, S),
+                           smem, s>>>(
       load, n1, n2, tw, y);
   return cudaGetLastError();
 }
@@ -586,12 +565,14 @@ cudaError_t cols_launch(Load load, int packed, int n1, int n2,
 // rows) -> out (rows, n/2 + 1).  The output's runs of consecutive bins are
 // S / 2 long: S = 64 or 32 where the strip fits in shared memory and the
 // batch fills the card, 8 at n2 = 2,048 (runs of 4 bins, one 32-byte
-// sector), 4 at 4,096 (runs of 2), 2 at 8,192 (single bins), else 16
-// (``cuda_fft.fft_real_rows_strip``).
-template <int S>
+// sector), 4 at 4,096 (runs of 2), else 16
+// (``cuda_fft.fft_real_rows_strip``).  kHalf: the epilogue of one row's
+// half-length transform (`fft_real_half`).
+template <int S, bool kHalf = false>
 __global__ void __launch_bounds__(1024)
 fft_real_rows(const float2* __restrict__ y, int rows, int n1, int n2,
-              const float2* __restrict__ tw, float2* __restrict__ out) {
+              const float2* __restrict__ tw, float2* __restrict__ out,
+              const float2* __restrict__ post) {
   using palt::kElems;
   constexpr int kPairs = S / 2;
   float2* stw = palt::fft_shared();
@@ -618,6 +599,28 @@ fft_real_rows(const float2* __restrict__ y, int rows, int n1, int n2,
     if (idx < total) buf[(idx >> shift) * ld + (idx & (n2 - 1))] = v[u];
   }
   palt::block_fft<S>(buf, 1, ld, n2, stw, 1.0f);
+  if constexpr (kHalf) {
+    // One real row's spectrum X[k], k <= n, from its half-length transform
+    // Z (n = n1 * n2 here): every bin k = row + n1 * k2 < n once, with its
+    // mirror Z[n - k] at the partner's place, and X[n] beside X[0].
+    for (int idx = threadIdx.x; idx < S * n2; idx += blockDim.x) {
+      const int r = idx % S;
+      const int k2 = idx / S;
+      const int row = pair_row(b, r, n1, kPairs);
+      int pr = r;  // rows 0 and n1/2 are their own partners
+      int pk = n2 - 1 - k2;
+      if (row == 0)
+        pk = (n2 - k2) & (n2 - 1);
+      else if (row != n1 / 2)
+        pr = r < kPairs ? r + kPairs : r - kPairs;
+      const float2 zk = buf[r * ld + k2];
+      const float2 zm = buf[pr * ld + pk];
+      const int k = row + n1 * k2;
+      out[k] = half_bin(zk, zm, cmul(__ldg(post + row), __ldg(post + n1 + k2)));
+      if (k == 0) out[n] = make_float2(zk.x - zk.y, 0.0f);
+    }
+    return;
+  }
   const int bins = (n >> 1) + 1;
   const int h2 = n2 >> 1;
   const bool two = 2 * c + 1 < rows;
@@ -641,18 +644,22 @@ fft_real_rows(const float2* __restrict__ y, int rows, int n1, int n2,
   }
 }
 
-// Pass 2 with S = s2 (2, 4, 8, 16, 32 or 64).
+// Pass 2 with S = s2 (2, 4, 8, 16, 32 or 64); kHalf: the epilogue of one
+// row's half-length transform (`fft_real_half`, post its table).
+template <bool kHalf = false>
 int fft_real_rows_launch(const float2* y, int rows, int n1, int n2, int s2,
-                         const float2* tw, float2* out, cudaStream_t s) {
+                         const float2* tw, float2* out, cudaStream_t s,
+                         const float2* post = nullptr) {
   const int packed = (rows + 1) / 2;
   const dim3 grid(n1 / s2, packed);
   const int threads = palt::fft_threads(n2, s2);
   const cudaError_t err = with_strip(s2, [&](auto strip) {
     constexpr int S = decltype(strip)::value;
     const int smem = (n2 / 2 + S * row_ld<S>(n2)) * (int)sizeof(float2);
-    const cudaError_t e = palt::allow_smem<fft_real_rows<S>>();
+    const cudaError_t e = palt::allow_smem<fft_real_rows<S, kHalf>>();
     if (e == cudaSuccess)
-      fft_real_rows<S><<<grid, threads, smem, s>>>(y, rows, n1, n2, tw, out);
+      fft_real_rows<S, kHalf><<<grid, threads, smem, s>>>(y, rows, n1, n2,
+                                                          tw, out, post);
     return e;
   });
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
@@ -689,7 +696,7 @@ cudaError_t fft_real_block_launch(Load load, int rows, int n,
 // mirrored, whose inverse column DFTs end in the maxima.  A maximum does
 // not depend on where a sample lies, so the output of the inverse is never
 // put in natural order.  For n <= 4096 one block holds the packed row
-// (`boot_block`); above 2^26 the three-pass split's five launches run
+// (`boot_block`); above 2^24 the three-pass split's five launches run
 // instead (`boot_long`).  K6 is the same pipeline with its rows drawn by
 // the loader (`NoiseLoad`) where K4b reads them (`RowLoad`).  Bound:
 // device memory, one read of the rows and two reads and two writes of the
@@ -703,21 +710,17 @@ cudaError_t fft_real_block_launch(Load load, int rows, int n,
 // 164-172 KB), the row pass 16 rows at n2 = 1,024 and 8 at 2,048 (172
 // KB).  A strip of 8 columns reads 64 bytes, two 32-byte sectors, of each
 // row; of 4 it reads one.  So above 2^22 the long side goes to the rows:
-// 2,048 x 4,096 at 2^23 (columns 8, `boot_rows` 4 rows: 196,640 bytes)
-// and 4,096 x 4,096 at 2^24 (4 and 4: 212,992 and 213,024 bytes), whose
-// column passes read one sector a row.  At n2 = 8,192 the tables leave no
-// room for a strip: 4,096 x 8,192 at 2^25 (columns 4, `boot_rows` 2 rows,
-// one row k1 and its partner) and 8,192 x 8,192 at 2^26 (2 and 2) hold
-// the n2-point table hi in device memory (`HiTable`; 180,224 / 196,736
-// and 229,376 / 229,504 bytes); `boot_cols` holds no hi table at any
-// length.  Above 2^26 the three-pass split (`boot_long`).
+// 2,048 x 4,096 at 2^23 (columns 8) and 4,096 x 4,096 at 2^24 (columns
+// 4), whose column passes read one sector a row; `boot_rows` holds at
+// most 8,192 points a strip in 512 threads (2 rows at n2 = 4,096: 131,136
+// / 139,328 bytes).  Above 2^24 the three-pass split (`boot_long`).
 
 // In place, bins q <= n/2 (at zq) and n - q (at zm; the same place for q
 // = 0 and n/2) of the packed forward spectrum -> the packed whitened
-// cross-spectrum: both real rows' bins q whitened against s1[q], their
-// imaginary parts dropped at DC and Nyquist as irfft drops them, written
-// with their mirrors as `store_packed` writes them.  One thread owns the
-// pair, so the in-place update needs no barrier.
+// cross-spectrum: both real rows' bins q whitened against s1[q]
+// (`whiten`), their imaginary parts dropped at DC and Nyquist as irfft
+// drops them, written with their mirrors as `store_packed` writes them.
+// One thread owns the pair, so the in-place update needs no barrier.
 __device__ __forceinline__ void boot_pair(const float2* __restrict__ s1,
                                           float2* zq, float2* zm, int q,
                                           int n, float eps) {
@@ -874,12 +877,12 @@ __device__ __forceinline__ void load_rows(const float2* yc, float2* buf,
 }
 
 // yc rows pair_row(b, r) <- the strip's inverse row DFTs times W_n^{-j2
-// k1} (the tables of `stage_split_tables`, or hi as a `HiTable`); ld as
-// `load_rows`.
-template <int S = palt::kStrip, class Hi = const float2*>
+// k1} (the tables of `stage_split_tables`); ld as `load_rows`.
+template <int S = palt::kStrip>
 __device__ __forceinline__ void store_rows(const float2* buf, float2* yc,
-                                           const float2* lo, Hi hi, int b,
-                                           int n1, int n2, int ld = 0) {
+                                           const float2* lo,
+                                           const float2* hi, int b, int n1,
+                                           int n2, int ld = 0) {
   constexpr int kPairs = S / 2;
   if (ld == 0) ld = n2 + 1;
   const int total = S * n2;
@@ -940,25 +943,21 @@ __device__ __forceinline__ void cols_inverse(const float2* yc, float2* buf,
 // row DFTs; times W_n^{-j2 k1}; written back in place (the block owns its
 // rows).  Block 0 of each packed row sets its two maxima to -inf for pass
 // 3.  The rows go back whole, so the strip's width does not set the
-// length of the output's runs as in K4a's pass 2: 16 rows keep a block at
-// n2 threads (8 rows at n2 = 2,048: 1,024 threads, 172 KB; 4 rows at
-// 4,096: 1,024 threads, 192-208 KB; 2 rows, one row k1 and its partner,
-// at 8,192 with kHi, hi read from device memory: 192-224 KB), and at n2
-// <= 256 (kMaxThreads 256) two blocks an SM with up to 128 registers a
-// thread.  The forward and
-// the inverse row DFTs are `block_fft_inline`, each inlined where it is
-// called.  E points a thread (kElems, or twice as many in half the
-// threads where kMaxThreads = 512, above 2^20: up to 128 registers a
-// thread at one block an SM).
-template <int kMaxThreads, int kMinBlocks, int S, int E = palt::kElems,
-          bool kHi = false>
+// length of the output's runs as in K4a's pass 2: kElems points a thread
+// (fft_threads), at most 8,192 points a strip (16 rows up to n2 = 512, 8
+// at 1,024, 4 at 2,048, 2 at 4,096: ``cuda_fft.split_strips``) in at most
+// 512 threads with up to 128 registers (kMaxThreads 512), and at n2 <= 256
+// (kMaxThreads 256) two blocks an SM with up to 128 registers a thread.
+// The forward and the inverse row DFTs are `block_fft_inline`, each
+// inlined where it is called.
+template <int kMaxThreads, int kMinBlocks, int S>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 boot_rows(const float2* __restrict__ s1, int rows, int n1, int n2, float eps,
           const float2* __restrict__ tw, float2* y, float* __restrict__ out) {
   float2* stw = palt::fft_shared();
   float2* lo = stw + (n2 >> 1);
   float2* hi = lo + n1;
-  float2* buf = kHi ? hi : hi + n2;
+  float2* buf = hi + n2;
   const int ld = row_ld<S>(n2);  // conflict-free half-warps
   const int n = n1 * n2;
   const int c = blockIdx.y;
@@ -967,22 +966,20 @@ boot_rows(const float2* __restrict__ s1, int rows, int n1, int n2, float eps,
     out[2 * c] = -INFINITY;
     if (2 * c + 1 < rows) out[2 * c + 1] = -INFINITY;
   }
-  // The 512-thread build runs only above 2^20, the others only up to it.
-  constexpr int kWhere = kMaxThreads == 512 ? 1 : 0;
+  // The 256-thread build runs only up to 2^20, the others on both sides.
+  constexpr int kWhere = kMaxThreads == 256 ? 0 : -1;
   stage_split_twiddles<kWhere>(stw, tw, n1, n2, true);
-  const auto hv = stage_split_lo_hi<kHi, kWhere>(lo, hi, tw, n1, n2);
+  stage_split_tables_of<kWhere>(lo, hi, tw, n1, n2);
   float2* yc = y + (size_t)c * n;
-  load_rows<S, E>(yc, buf, b, n1, n2, ld);
-  palt::block_fft_inline<S, palt::Radix16<S, E>, E>(buf, 1, ld, n2, stw,
-                                                    1.0f);
+  load_rows<S>(yc, buf, b, n1, n2, ld);
+  palt::block_fft_inline<S>(buf, 1, ld, n2, stw, 1.0f);
   const int tasks = pair_tasks<S>(b, n2);
   for (int t = threadIdx.x; t < tasks; t += blockDim.x) {
     const PairTask p = pair_task<S>(t, b, n1, n2, ld);
     boot_pair(s1, buf + p.zq, buf + p.zm, p.q, n, eps);
   }
-  palt::block_fft_inline<S, palt::Radix16<S, E>, E>(buf, 1, ld, n2, stw,
-                                                    -1.0f);
-  store_rows<S>(buf, yc, lo, hv, b, n1, n2, ld);
+  palt::block_fft_inline<S>(buf, 1, ld, n2, stw, -1.0f);
+  store_rows<S>(buf, yc, lo, hi, b, n1, n2, ld);
 }
 
 // Pass 3, pass 1 mirrored.  Grid (n2 / S column strips, packed rows),
@@ -1018,20 +1015,18 @@ boot_cols(const float2* __restrict__ y, int rows, int n1, int n2,
   }
 }
 
-// K4b's and K6's row pass, strips of S rows: fft_threads(n2, S) threads
-// a block up to 2^20, half as many with twice the points a thread above
-// (1,024 -> 512 at every strip there; strips of 8, 4 and 2 rows occur
-// only there); kHi (n2 > kHiSharedMax): hi read from device memory.
-template <int S, bool kHi = false>
+// K4b's and K6's row pass, strips of S rows in fft_threads(n2, S)
+// threads: two blocks of 256 an SM at n2 <= 256, else at most 512.
+template <int S>
 cudaError_t boot_rows_launch(const float2* s1, int rows, int n1, int n2,
                              float eps, const float2* tw, float2* buf,
                              float* out, cudaStream_t s) {
   const dim3 grid(n1 / S, (rows + 1) / 2);
   const int threads = palt::fft_threads(n2, S);
-  const int smem = (n2 / 2 + n1 + (kHi ? 0 : n2) + S * row_ld<S>(n2)) *
-                   (int)sizeof(float2);
+  const int smem =
+      (n2 / 2 + n1 + n2 + S * row_ld<S>(n2)) * (int)sizeof(float2);
   cudaError_t err;
-  if constexpr (S == palt::kStrip) {  // 8 or 4 rows at n2 = 2,048, 4,096
+  if constexpr (S == palt::kStrip) {
     if (n2 <= 256) {
       err = palt::allow_smem<boot_rows<256, 2, S>>();
       if (err != cudaSuccess) return err;
@@ -1040,20 +1035,11 @@ cudaError_t boot_rows_launch(const float2* s1, int rows, int n1, int n2,
       return cudaGetLastError();
     }
   }
-  if (S < palt::kStrip || (size_t)n1 * n2 > ((size_t)1 << 20)) {
-    err = palt::allow_smem<boot_rows<512, 1, S, 2 * palt::kElems, kHi>>();
-    if (err != cudaSuccess) return err;
-    boot_rows<512, 1, S, 2 * palt::kElems, kHi>
-        <<<grid, threads / 2, smem, s>>>(s1, rows, n1, n2, eps, tw, buf,
-                                         out);
-    return cudaGetLastError();
-  }
-  if constexpr (S == palt::kStrip) {  // strips below 16 run above 2^20
-    err = palt::allow_smem<boot_rows<1024, 1, S>>();
-    if (err != cudaSuccess) return err;
-    boot_rows<1024, 1, S><<<grid, threads, smem, s>>>(s1, rows, n1, n2, eps,
-                                                      tw, buf, out);
-  }
+  if (threads > 512) return cudaErrorInvalidValue;
+  err = palt::allow_smem<boot_rows<512, 1, S>>();
+  if (err != cudaSuccess) return err;
+  boot_rows<512, 1, S><<<grid, threads, smem, s>>>(s1, rows, n1, n2, eps, tw,
+                                                   buf, out);
   return cudaGetLastError();
 }
 
@@ -1080,17 +1066,17 @@ cudaError_t boot_split(const float2* s1, Load load, int rows, int n, int n1,
     return cudaGetLastError();
   }
   const int n2 = n / n1;
-  err = with_split_strip(cs, n2, [&](auto strip, auto hi) {
-    return cols_launch<decltype(strip)::value, decltype(hi)::value>(
+  err = with_split_strip(cs, [&](auto strip) {
+    return cols_launch<decltype(strip)::value>(
         load, packed, n1, n2, tw, buf, s);
   });
   if (err != cudaSuccess) return err;
-  err = with_split_strip<2>(rs, n2, [&](auto strip, auto hi) {
-    return boot_rows_launch<decltype(strip)::value, decltype(hi)::value>(
+  err = with_split_strip<2>(rs, [&](auto strip) {
+    return boot_rows_launch<decltype(strip)::value>(
         s1, rows, n1, n2, eps, tw, buf, out, s);
   });
   if (err != cudaSuccess) return err;
-  return with_split_strip(cs, n2, [&](auto strip, auto) {
+  return with_split_strip(cs, [&](auto strip) {
     constexpr int S = decltype(strip)::value;
     const cudaError_t e = palt::allow_smem<boot_cols<S>>();
     if (e != cudaSuccess) return e;
@@ -1101,15 +1087,17 @@ cudaError_t boot_split(const float2* s1, Load load, int rows, int n, int n1,
   });
 }
 
-// ---- every transforming kernel above 2^26: the three-pass split ---------
+// ---- every transforming kernel above 2^24: the three-pass split ---------
 //
-// Above 2^26, to 2^30 (``cuda_fft.FFT_LONG_MAX``), n = n1 * n2 keeps the
-// row side of 2^26, n2 = 8,192: a row pass holds row k1 and its partner n1
-// - k1, 2 x 8,192 = kElems * 1024 points, so n2 cannot grow.  The columns
-// grow instead, n1 = 16,384 at 2^27 to 131,072 at 2^30, where a column
-// pass could hold one column a strip, a quarter of a 32-byte sector a row.
-// So the n1-point column DFTs split again, n1 = n1a * n1b, j1 = n1b j1a +
-// j1b and k1 = k1a + n1a k1b:
+// Above 2^24, to 2^30 (``cuda_fft.FFT_LONG_MAX``), n = n1 * n2 takes rows
+// of n2 = 2,048 points (``cuda_fft.LONG_N2``): K4a's row pass holds 4 rows
+// k1 and their partners, kElems * 1024 points, and writes its spectra in
+// runs of 4 bins, whole 32-byte sectors; the other row passes hold row k1
+// and its partner, several blocks an SM.  The columns are long, n1 =
+// 16,384 at 2^25 to 2^19 at 2^30, where a column pass could hold one
+// column a strip, a quarter of a 32-byte sector a row.  So the n1-point
+// column DFTs split again, n1 = n1a * n1b, j1 = n1b j1a + j1b and k1 =
+// k1a + n1a k1b:
 //   sum_j1 W_n1^{j1 k1} z[j1] = sum_j1b W_n1b^{j1b k1b} W_n1^{j1b k1a}
 //                               * sum_j1a W_n1a^{j1a k1a} z[n1b j1a + j1b],
 // two column passes whose strips hold S = kStrip columns j2, 128 bytes of
@@ -1120,12 +1108,12 @@ cudaError_t boot_split(const float2* s1, Load load, int rows, int n, int n1,
 // + n1a j1b.  Pass B (`long_cols_b`): block (k1a, strip), the n1b-point
 // DFTs over j1b of rows k1a + n1a j1b, times W_n^{j2 k1}, to row k1 = k1a
 // + n1a k1b: the rows it read (in place), and Y[k1, j2] as `fft_real_cols`
-// writes it, so that K4a's pass 2 (`fft_real_rows`, strips of 2 rows at
-// n2 = 8,192) follows as at 2^26.  K4b and K6 run `boot_rows_long` there
-// (`boot_rows` without the inverse twiddle), then the two passes mirrored:
-// B' (`long_cols_b` inverse: times W_n^{-j2 k1}, the inverse n1b-point
-// DFTs, back to rows k1a + n1a j1b) and A' (`long_cols_max`: times
-// W_n1^{-j1b k1a}, the inverse n1a-point DFTs and the maxima, as
+// writes it, so that K4a's pass 2 (`fft_real_rows`,
+// strips of 8 rows at n2 = 2,048) follows.  K4b and K6 run `boot_rows_long`
+// there (`boot_rows` without the inverse twiddle), then the two passes
+// mirrored: B' (`long_cols_b` inverse: times W_n^{-j2 k1}, the inverse
+// n1b-point DFTs, back to rows k1a + n1a j1b) and A' (`long_cols_max`:
+// times W_n1^{-j1b k1a}, the inverse n1a-point DFTs and the maxima, as
 // `boot_cols`).  K9 and K1's back half run `corr_rows_long` (`corr_rows`
 // without the conjugate twiddle) over natural-order spectra, then B' and
 // A' with the correlations (`long_cols_corr`, as `corr_cols`); K1 first
@@ -1138,19 +1126,20 @@ cudaError_t boot_split(const float2* s1, Load load, int rows, int n, int n1,
 // `render_cols`).  A' writes other rows than it reads, so unlike the
 // split's last column pass it never runs in place.  The sub-twiddles come
 // from the n1a- and n1b-point half tables after the n-, n1- and n2-point
-// ones (``cuda_fft._twiddles``); W_n1^e from the n1-point half table and
-// W_n^e as W_n2^{e / n1} W_n^{e mod n1}, `split_twiddle`'s product, both
-// through the read-only path (n1 points do not fit beside a strip in
-// shared memory).  Bound: device
-// memory, 16 bytes a point of the packed rows a pass.
+// ones (``cuda_fft._long_twiddles``); W_n1^e (pass A) from the n1-point
+// half table through the read-only path, whose entries a warp shares;
+// W_n^e (pass B) from three tables in shared memory (`Tw3`).  Bound:
+// device memory, 16 bytes a point of the packed rows a pass.
 
-// The half tables of the three-pass split at n = n1a * n1b * n2 after the
-// n-point one: W_n1, W_n2, W_n1a, W_n1b.
+// The tables of the three-pass split at n = n1a * n1b * n2 after the
+// n-point half table: the half tables W_n1, W_n2, W_n1a, W_n1b, then
+// pass B's three tables of W_n (`Tw3`).
 struct LongTables {
   const float2* n1;
   const float2* n2;
   const float2* a;
   const float2* b;
+  const float2* w3;
 };
 
 __device__ __forceinline__ LongTables long_tables(const float2* tw, int n1a,
@@ -1159,15 +1148,44 @@ __device__ __forceinline__ LongTables long_tables(const float2* tw, int n1a,
   const float2* t1 = tw + (((size_t)n1 * n2) >> 1);
   const float2* t2 = t1 + (n1 >> 1);
   const float2* ta = t2 + (n2 >> 1);
-  return {t1, t2, ta, ta + (n1a >> 1)};
+  const float2* tb = ta + (n1a >> 1);
+  return {t1, t2, ta, tb, tb + (n1b >> 1)};
 }
 
-// W_n^e, e < n = n1 * n2: `split_twiddle`'s product W_n2^{e / n1} W_n^{e
-// mod n1}, lo read from the n-point table's first n1 entries.
-__device__ __forceinline__ float2 long_twiddle(const float2* __restrict__ tw,
-                                               const HiTable& hi, int e,
-                                               int n1) {
-  return cmul(hi[e >> (__ffs(n1) - 1)], __ldg(tw + (e & (n1 - 1))));
+// W_N^e, e < N = 2^L, as T0[e mod 2^b] * T1[(e >> b) mod 2^b] * T2[e >> 2b]
+// with b = ceil(L / 3): three full-circle tables of at most 1,024 entries
+// each (24 KB at 2^30), made in float64 on the host and rounded once
+// (``cuda_fft.tw3_sizes``), staged in shared memory by the block that
+// reads them (`stage_tw3`), so that pass B's twiddles W_n^{j2 k1} take
+// three shared-memory reads where the two-level product read scattered
+// entries of an n1-point table in device memory.
+__host__ __device__ constexpr int tw3_bits(int bits) {
+  return (bits + 2) / 3;
+}
+
+__host__ __device__ constexpr int tw3_points(int bits) {
+  return (2 << tw3_bits(bits)) +
+         (1 << (bits > 2 * tw3_bits(bits) ? bits - 2 * tw3_bits(bits) : 0));
+}
+
+struct Tw3 {
+  const float2* t;  // T0 | T1 | T2
+  int b;
+  __device__ __forceinline__ float2 operator()(int e) const {
+    const int lo = (1 << b) - 1;
+    const float2 w = cmul(t[(2 << b) + (e >> (2 * b))],
+                          t[(1 << b) + ((e >> b) & lo)]);
+    return cmul(w, t[e & lo]);
+  }
+};
+
+// dst (shared) <- the tables of W_N, N = 2^bits, from src (device).
+__device__ __forceinline__ Tw3 stage_tw3(float2* dst,
+                                         const float2* __restrict__ src,
+                                         int bits) {
+  const int count = tw3_points(bits);
+  for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = src[i];
+  return {dst, tw3_bits(bits)};
 }
 
 // Pass A.  Grid (n1b * n2 / S blocks (j1b, strip), packed rows).
@@ -1210,22 +1228,24 @@ long_cols_a(Load load, int n1a, int n1b, int n2, const float2* __restrict__ tw,
 
 // Pass B, forward, or B' (kInverse).  Grid (n1a * n2 / S blocks (k1a,
 // strip), packed rows); the block reads and writes rows k1a + n1a q, q <
-// n1b, of its strip.
+// n1b, of its strip, with W_n^{j2 k1} from the tables of `Tw3` it stages.
 template <int S, bool kInverse>
 __global__ void __launch_bounds__(1024)
 long_cols_b(int n1a, int n1b, int n2, const float2* __restrict__ tw,
             float2* y) {
   using palt::kElems;
-  float2* stw = palt::fft_shared();
-  float2* buf = stw + (n1b >> 1);
   const int n1 = n1a * n1b;
+  const int bits = __ffs(n1) + __ffs(n2) - 2;
+  float2* stw = palt::fft_shared();
+  float2* t3 = stw + (n1b >> 1);
+  float2* buf = t3 + tw3_points(bits);
   const int c = blockIdx.y;
   const int strips = n2 / S;
   const int k1a = blockIdx.x / strips;
   const int c0 = (blockIdx.x - k1a * strips) * S;
   const LongTables t = long_tables(tw, n1a, n1b, n2);
   palt::stage_twiddles(stw, t.b, n1b, 1);
-  const HiTable hi{t.n2, n2 >> 1};
+  const Tw3 w3 = stage_tw3(t3, t.w3, bits);
   float2* yc = y + (size_t)c * n1 * n2;
   const int total = n1b * S;
   float2 v[kElems];
@@ -1236,13 +1256,14 @@ long_cols_b(int n1a, int n1b, int n2, const float2* __restrict__ tw,
                ? yc[(size_t)(k1a + n1a * (idx / S)) * n2 + c0 + idx % S]
                : make_float2(0.0f, 0.0f);
   }
+  if constexpr (kInverse) __syncthreads();  // the tables staged
 #pragma unroll
   for (int u = 0; u < kElems; ++u) {
     const int idx = threadIdx.x + u * blockDim.x;
     if (idx < total) {
       if constexpr (kInverse) {
         const int j2 = c0 + idx % S;
-        float2 w = long_twiddle(tw, hi, j2 * (k1a + n1a * (idx / S)), n1);
+        float2 w = w3(j2 * (k1a + n1a * (idx / S)));
         w.y = -w.y;
         buf[idx] = cmul(v[u], w);
       } else {
@@ -1250,13 +1271,12 @@ long_cols_b(int n1a, int n1b, int n2, const float2* __restrict__ tw,
       }
     }
   }
-  palt::block_fft<S>(buf, S, 1, n1b, stw, kInverse ? -1.0f : 1.0f);
+  palt::block_fft_inline<S>(buf, S, 1, n1b, stw, kInverse ? -1.0f : 1.0f);
   for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
     const int row = k1a + n1a * (idx / S);
     const int j2 = c0 + idx % S;
     yc[(size_t)row * n2 + j2] =
-        kInverse ? buf[idx]
-                 : cmul(buf[idx], long_twiddle(tw, hi, j2 * row, n1));
+        kInverse ? buf[idx] : cmul(buf[idx], w3(j2 * row));
   }
 }
 
@@ -1329,38 +1349,40 @@ long_cols_max(const float2* __restrict__ y, int rows, int n1a, int n1b,
 }
 
 // K4b's and K6's row pass of the three-pass split: `boot_rows` at n2 =
-// 8,192 in strips of S = 2 rows (row k1 and its partner; block 0 rows 0
-// and n1/2) and 512 threads, the rows written back without the inverse
-// twiddle, which pass B' takes: so it holds no n1-point table (128 KB at
-// 2^27, too many beside the strip), only the n2-point sub-twiddles.
+// 2,048 in strips of S = 2 rows (row k1 and its partner; block 0 rows 0
+// and n1/2), kElems points a thread (fft_threads, 256 threads), the rows
+// written back without the inverse twiddle, which pass B' takes: so it
+// holds no n1-point table, only the n2-point sub-twiddles (41 KB, several
+// blocks an SM).  Block x takes packed row x mod packed at strip x /
+// packed: the blocks that run together read the same bins of s1, which
+// the packed rows of a launch share, so that s1 comes from device memory
+// once for them.
 template <int S>
-__global__ void __launch_bounds__(512, 1)
+__global__ void __launch_bounds__(256, 2)
 boot_rows_long(const float2* __restrict__ s1, int rows, int n1, int n2,
                float eps, const float2* __restrict__ tw, float2* y,
                float* __restrict__ out) {
-  constexpr int E = 2 * palt::kElems;
   float2* stw = palt::fft_shared();
   float2* buf = stw + (n2 >> 1);
   const int ld = row_ld<S>(n2);  // conflict-free half-warps
   const int n = n1 * n2;
-  const int c = blockIdx.y;
-  const int b = blockIdx.x;
+  const int packed = (rows + 1) / 2;
+  const int c = blockIdx.x % packed;
+  const int b = blockIdx.x / packed;
   if (b == 0 && threadIdx.x == 0) {
     out[2 * c] = -INFINITY;
     if (2 * c + 1 < rows) out[2 * c + 1] = -INFINITY;
   }
   stage_split_twiddles<1>(stw, tw, n1, n2, true);
   float2* yc = y + (size_t)c * n;
-  load_rows<S, E>(yc, buf, b, n1, n2, ld);
-  palt::block_fft_inline<S, palt::Radix16<S, E>, E>(buf, 1, ld, n2, stw,
-                                                    1.0f);
+  load_rows<S>(yc, buf, b, n1, n2, ld);
+  palt::block_fft_inline<S>(buf, 1, ld, n2, stw, 1.0f);
   const int tasks = pair_tasks<S>(b, n2);
   for (int t = threadIdx.x; t < tasks; t += blockDim.x) {
     const PairTask p = pair_task<S>(t, b, n1, n2, ld);
     boot_pair(s1, buf + p.zq, buf + p.zm, p.q, n, eps);
   }
-  palt::block_fft_inline<S, palt::Radix16<S, E>, E>(buf, 1, ld, n2, stw,
-                                                    -1.0f);
+  palt::block_fft_inline<S>(buf, 1, ld, n2, stw, -1.0f);
   store_rows_long<S>(buf, yc, b, n1, n2, ld);
 }
 
@@ -1370,11 +1392,13 @@ cudaError_t long_cols_b_launch(int packed, int n1a, int n1b, int n2,
                                const float2* tw, float2* buf,
                                cudaStream_t s) {
   constexpr int S = palt::kStrip;
+  const int bits = __builtin_ctz(n1a) + __builtin_ctz(n1b) + __builtin_ctz(n2);
+  const int smem =
+      (n1b / 2 + tw3_points(bits) + n1b * S) * (int)sizeof(float2);
   const cudaError_t err = palt::allow_smem<long_cols_b<S, kInverse>>();
   if (err != cudaSuccess) return err;
   long_cols_b<S, kInverse><<<dim3(n1a * (n2 / S), packed),
-                             palt::fft_threads(n1b, S),
-                             (n1b / 2 + n1b * S) * (int)sizeof(float2), s>>>(
+                             palt::fft_threads(n1b, S), smem, s>>>(
       n1a, n1b, n2, tw, buf);
   return cudaGetLastError();
 }
@@ -1401,9 +1425,9 @@ cudaError_t long_forward(Load load, int packed, int n1a, int n1b, int n2,
 
 // K4a's three passes on the three-pass split (n = n1 * n2, n1 = n1a *
 // n1b) over the `rows` rows given by load: passes A and B into buf
-// (ceil(rows / 2), n), then `fft_real_rows` (s2 = 2 rows a strip) into
+// (ceil(rows / 2), n), then `fft_real_rows` (s2 = 8 rows a strip) into
 // their natural-order half spectra spec (rows, n/2 + 1): the spectra that
-// the GCCs' and the render's back halves read above 2^26.  buf may not be
+// the GCCs' and the render's back halves read above 2^24.  buf may not be
 // the loader's: pass A writes other rows than it reads.
 template <class Load>
 cudaError_t long_spectra(Load load, int rows, int n, int n1, int n1a, int cs,
@@ -1432,10 +1456,11 @@ cudaError_t boot_long(const float2* s1, Load load, int rows, int n, int n1,
   if (rs != kRows) return cudaErrorInvalidValue;
   cudaError_t err = long_forward(load, packed, n1a, n1b, n2, cs, tw, buf, s);
   if (err != cudaSuccess) return err;
+  if (palt::fft_threads(n2, kRows) > 256) return cudaErrorInvalidValue;
   err = palt::allow_smem<boot_rows_long<kRows>>();
   if (err != cudaSuccess) return err;
-  boot_rows_long<kRows><<<dim3(n1 / kRows, packed),
-                          palt::fft_threads(n2, kRows) / 2,
+  boot_rows_long<kRows><<<(n1 / kRows) * packed,
+                          palt::fft_threads(n2, kRows),
                           (n2 / 2 + kRows * row_ld<kRows>(n2)) *
                               (int)sizeof(float2),
                           s>>>(s1, rows, n1, n2, eps, tw, buf, out);
@@ -1787,9 +1812,9 @@ finish_spread(float2* z, int rows, int n, int mics, int out_len,
 // the mic count, for K3, K2 and K5 alike: the rows routes); up to 4,096
 // points one block holds a packed
 // base row (`render_block`) or a scene (`window_block`, where its rows
-// fit).  Elsewhere up to 2^26 both stages go through spectra on the
+// fit).  Elsewhere up to 2^24 both stages go through spectra on the
 // split: the render through the base rows' (`render_spectra`), the GCC
-// through the mic rows' (`window_route`); above 2^26, to 2^30, both go
+// through the mic rows' (`window_route`); above 2^24, to 2^30, both go
 // through them on the three-pass split (`render_long`, `window_long`).
 // Three launches a stage on the split with two-strip row passes:
 //
@@ -1893,12 +1918,12 @@ render_rows(const float* __restrict__ tau, const float* __restrict__ gain,
 // `mic_response`, stored as the Hermitian pair (`store_pair`); then the
 // inverse row DFTs and the conjugate twiddle into z.  One strip at any
 // mic count, of S = 16 rows (8 at n2 = 2,048: 172 KB; 4 at 4,096: 192-208
-// KB; 2 at 8,192 with kHi, hi read from device memory: 192-224 KB), at
-// the bank-spread stride `row_ld`, where `render_rows`' two strips pass
-// a block's shared memory (from 2^20).  The grid holds a block for each
-// strip of each packed mic row, 128 to 8,192 blocks for one scene of 4
-// mics, so it needs no `row_groups`.  Above 2^20 the tables come from
-// the contiguous copies (`stage_split_lo_hi`).  A block runs
+// KB), at the bank-spread stride `row_ld`, where `render_rows`' two
+// strips pass a block's shared memory (from 2^20).  The grid holds a
+// block for each strip of each packed mic row, 128 to 2,048 blocks for
+// one scene of 4 mics, so it needs no `row_groups`.  Above 2^20 the
+// tables come from the contiguous copies (`stage_split_tables_of`).  A
+// block runs
 // fft_threads(n2, S) = 1,024 threads: 512 threads of twice the points
 // measured 3-12 % slower from 2^21 to 2^24 (PERF.md).
 // `render_spec_rows`' and `render_spec_rows_long`'s gather: each
@@ -1931,7 +1956,7 @@ __device__ __forceinline__ void render_gather(
   }
 }
 
-template <int S, bool kHi = false>
+template <int S>
 __global__ void __launch_bounds__(1024)
 render_spec_rows(const float2* __restrict__ spec,
                  const float* __restrict__ tau,
@@ -1941,26 +1966,25 @@ render_spec_rows(const float2* __restrict__ spec,
   float2* stw = palt::fft_shared();
   float2* lo = stw + (n2 >> 1);
   float2* hi = lo + n1;
-  float2* work = kHi ? hi : hi + n2;
+  float2* work = hi + n2;
   const int ld = row_ld<S>(n2);  // conflict-free half-warps
   const int n = n1 * n2;
   const int pm = blockIdx.y;
   const int b = blockIdx.x;
   stage_split_twiddles<split_where<S>()>(stw, tw, n1, n2, true);
-  const auto hv = stage_split_lo_hi<kHi, split_where<S>()>(lo, hi, tw, n1,
-                                                            n2);
+  stage_split_tables_of<split_where<S>()>(lo, hi, tw, n1, n2);
   render_gather<S>(spec, tau, gain, rows, mics, paths, pm, b, n1, n2, ld,
                    work);
   palt::block_fft<S>(work, 1, ld, n2, stw, -1.0f);
-  store_rows<S>(work, z + (size_t)pm * n, lo, hv, b, n1, n2, ld);
+  store_rows<S>(work, z + (size_t)pm * n, lo, hi, b, n1, n2, ld);
 }
 
-// K3's (and K5's) mix row pass of the three-pass split (above 2^26):
-// `render_spec_rows` at n2 = 8,192 in strips of S = 2 rows (row k1 and
-// its partner; block 0 rows 0 and n1/2), 1,024 threads, the rows written
+// K3's (and K5's) mix row pass of the three-pass split (above 2^24):
+// `render_spec_rows` at n2 = 2,048 in strips of S = 2 rows (row k1 and
+// its partner; block 0 rows 0 and n1/2), 256 threads, the rows written
 // back without the conjugate twiddle, which pass B' takes (as
 // `corr_rows_long` leaves it): no n1- or n2-point table, only the
-// n2-point sub-twiddles of its inverse row DFTs (163,968 bytes).
+// n2-point sub-twiddles of its inverse row DFTs (41,088 bytes).
 template <int S>
 __global__ void __launch_bounds__(1024)
 render_spec_rows_long(const float2* __restrict__ spec,
@@ -1985,7 +2009,7 @@ render_spec_rows_long(const float2* __restrict__ spec,
 // Render pass 3.  Grid (n2 / S column strips, packed mic rows): the
 // inverse column DFTs; sample n2*j1 + j2 goes back to the address the
 // strip read it from, which is its natural place.  S = kStrip (16)
-// columns, 8 at n1 = 2,048, 4 at 4,096, 2 at 8,192
+// columns, 8 at n1 = 2,048, 4 at 4,096
 // (``cuda_fft.spectra_plan``); the strips below 16 (above 2^20) read the
 // n1-point sub-twiddles from the contiguous copy, as `boot_cols`.
 template <int S>
@@ -2140,8 +2164,8 @@ __device__ __forceinline__ void arg_unkey(unsigned long long key, float& v,
 // The row's last block (counted in count) sums the partials in block
 // order and writes the statistics: no float atomics, so the result does
 // not depend on the order in which the blocks run.  S = kStrip (16)
-// columns a strip, 8 at n1 = 2,048, 4 at 4,096, 2 at 8,192 (the spectra
-// route's, ``cuda_fft.spectra_plan``: up to 4,096 blocks a row at 2^26,
+// columns a strip, 8 at n1 = 2,048, 4 at 4,096 (the spectra route's,
+// ``cuda_fft.spectra_plan``: up to 1,024 blocks a row at 2^24,
 // whose partials the last block sums in order); the strips below 16 read
 // the n1-point sub-twiddles from the contiguous copy.
 template <int S>
@@ -2270,7 +2294,7 @@ cudaError_t render_split(const float* base, int scenes, int len,
   return render_cols_launch<kStrip>((rows + 1) / 2, n1, n2, tw, z, s);
 }
 
-// The render stage through the base rows' spectra (2^20 <= n <= 2^26, the
+// The render stage through the base rows' spectra (2^20 <= n <= 2^24, the
 // split n = n1 * n2), where `render_rows`' two strips do not fit: K4a's
 // two passes over the base rows (two scenes a packed row) into their half
 // spectra spec (scenes, n/2 + 1) through zb (ceil(scenes / 2), n; may be
@@ -2278,8 +2302,7 @@ cudaError_t render_split(const float* base, int scenes, int len,
 // `render_cols`, leaving in z (ceil(scenes * mics / 2), n) the unscaled
 // packed inverse of the mixes in natural order, as `render_split` does.
 // cs: the column passes' strip, s2: K4a's pass-2 strip, rs: the row
-// pass's; at n2 = 8,192 K4a's first pass and the row pass read the
-// n2-point table from device memory (kHi, `with_split_strip`).  Bound:
+// pass's (`with_split_strip`).  Bound:
 // device memory, the bases' read, K4a's packed rows out and back, the
 // spectra out and (a scene's once for each of its mic rows) back, the
 // packed mic rows out and back and the inverse's write.
@@ -2291,34 +2314,32 @@ cudaError_t render_spectra(const float* base, int scenes, int len,
   const int n2 = n / n1;
   const int rows = scenes * mics;
   const int packed = (rows + 1) / 2;
-  cudaError_t err = with_split_strip(cs, n2, [&](auto strip, auto hi) {
-    return cols_launch<decltype(strip)::value, decltype(hi)::value>(
+  cudaError_t err = with_split_strip(cs, [&](auto strip) {
+    return cols_launch<decltype(strip)::value>(
         RowLoad{base, scenes, len}, (scenes + 1) / 2, n1, n2, tw, zb, s);
   });
   if (err != cudaSuccess) return err;
   err = (cudaError_t)fft_real_rows_launch(zb, scenes, n1, n2, s2, tw, spec,
                                           s);
   if (err != cudaSuccess) return err;
-  err = with_split_strip<2>(rs, n2, [&](auto strip, auto hi) {
+  err = with_split_strip(rs, [&](auto strip) {
     constexpr int S = decltype(strip)::value;
-    constexpr bool kHi = decltype(hi)::value;
-    const cudaError_t e = palt::allow_smem<render_spec_rows<S, kHi>>();
+    const cudaError_t e = palt::allow_smem<render_spec_rows<S>>();
     if (e != cudaSuccess) return e;
-    render_spec_rows<S, kHi>
+    render_spec_rows<S>
         <<<dim3(n1 / S, packed), palt::fft_threads(n2, S),
-           (n2 / 2 + n1 + (kHi ? 0 : n2) + S * row_ld<S>(n2)) *
-               (int)sizeof(float2),
+           (n2 / 2 + n1 + n2 + S * row_ld<S>(n2)) * (int)sizeof(float2),
            s>>>(spec, tau, gain, rows, mics, paths, n1, n2, tw, z);
     return cudaGetLastError();
   });
   if (err != cudaSuccess) return err;
-  return with_split_strip(cs, n2, [&](auto strip, auto) {
+  return with_split_strip(cs, [&](auto strip) {
     return render_cols_launch<decltype(strip)::value>(packed, n1, n2, tw, z,
                                                       s);
   });
 }
 
-// The render stage on the three-pass split (above 2^26, to 2^30; n = n1 *
+// The render stage on the three-pass split (above 2^24, to 2^30; n = n1 *
 // n2, n1 = n1a * n1b): K4a's three passes over the base rows (two scenes a
 // packed row) into their half spectra spec (scenes, n/2 + 1) through zb
 // (ceil(scenes / 2), n; may be z, which is written only after,
@@ -2459,8 +2480,8 @@ cudaError_t gcc_split(Load load, int scenes, int mics, const int* pairs_i,
 //      65,536): K4a's pass 1 over the mic rows; `gcc_rows`, which holds a
 //      strip of every packed mic row a scene spans and one more, (mics +
 //      1) / 2 + 1 strips; `corr_cols` (K1) or `window_cols` (K2, K5).
-// spectra (8,192 to 2^26 where `gcc_rows` does not fit, so at 2^20 to
-//      2^26 at any mic count):  K4a's two passes over the mic rows into
+// spectra (8,192 to 2^24 where `gcc_rows` does not fit, so at 2^20 to
+//      2^24 at any mic count):  K4a's two passes over the mic rows into
 //      their natural-order spectra (scenes * mics, n/2 + 1); `corr_rows`
 //      with `PairIndexLoad`, which reads rows scene * mics + pairs_i[p]
 //      and scene * mics + pairs_j[p] of them into the packed cross rows
@@ -2471,7 +2492,7 @@ cudaError_t gcc_split(Load load, int scenes, int mics, const int* pairs_i,
 //      `fft_real_block` into the spectra; `corr_block` with
 //      `PairIndexLoad`, a block a packed cross row, and K1's (`CorrOut`)
 //      or K2's (`WindowOut`) epilogue.
-// long (above 2^26, to 2^30):  the three-pass split through the spectra:
+// long (above 2^24, to 2^30):  the three-pass split through the spectra:
 //      K4a's passes A and B and `fft_real_rows` over the mic rows into
 //      their spectra (`long_spectra`); `corr_rows_long` with
 //      `PairIndexLoad` (K2's keys and counters zeroed there), pass B' and
@@ -2480,7 +2501,7 @@ cudaError_t gcc_split(Load load, int scenes, int mics, const int* pairs_i,
 //
 // K9:  `corr_rows` with `RowPairLoad` (rows 2c and 2c + 1 of a and b),
 //      `corr_cols`; `corr_block` with `RowPairLoad` up to 4,096;
-//      `corr_long` with `RowPairLoad` above 2^26.
+//      `corr_long` with `RowPairLoad` above 2^24.
 //
 // `corr_rows` gathers each strip's bins of the two spectra of a pair (bin
 // q <= n/2; the mirror comes from the Hermitian pair), whitens, runs the
@@ -2489,9 +2510,7 @@ cudaError_t gcc_split(Load load, int scenes, int mics, const int* pairs_i,
 // the real part to pair 2c and the imaginary part to pair 2c + 1.  The
 // strips are ``cuda_fft.spectra_plan``'s: 16 columns and 16 rows up
 // to 1,024 x 1,024, 8 columns at n1 = 2,048 and 8 rows at n2 = 2,048, 4
-// rows at n2 = 4,096 (2^23) and 4 columns at n1 = 4,096 (2^24, 2^25), 2
-// rows at n2 = 8,192 (2^25, 2^26; the n2-point table read from device
-// memory) and 2 columns at n1 = 8,192 (2^26).
+// rows at n2 = 4,096 (2^23) and 4 columns at n1 = 4,096 (2^24).
 // Bound: device memory (the rows' read and the correlations' or windows'
 // write, plus on the split one write and one read of each packed buffer a
 // pass, and the spectra on the spectra routes) and, in the row passes,
@@ -2623,14 +2642,12 @@ __device__ __forceinline__ void corr_gather(const CorrPair& src,
 // natural-order spectra (one task a mirror pair, `pair_task`, so that
 // reads run over consecutive bins), then the inverse row DFTs and the
 // conjugate twiddle into zc.  S = 16 rows a strip, 8 at n2 = 2,048 (172
-// KB), 4 at 4,096 (192-208 KB), 2 at 8,192 (one row k1 and its partner;
-// with kHi, hi read from device memory: 192-224 KB), at the bank-spread
-// stride `row_ld`.  Above 2^20 the tables come from the contiguous copies
-// (`stage_split_lo_hi`).  Where keys is not null (K2's and K5's spectra
+// KB), 4 at 4,096 (192-208 KB), at the bank-spread stride `row_ld`.
+// Above 2^20 the tables come from the contiguous copies
+// (`stage_split_tables_of`).  Where keys is not null (K2's and K5's spectra
 // route), block (0, c) clears row c's two argmax keys and its block
 // counter for `window_cols`.
-template <int kMaxThreads, int kMinBlocks, int S, class Load,
-          bool kHi = false>
+template <int kMaxThreads, int kMinBlocks, int S, class Load>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 corr_rows(Load load, const float* __restrict__ band, float eps, int n1,
           int n2, const float2* __restrict__ tw, float2* __restrict__ zc,
@@ -2639,7 +2656,7 @@ corr_rows(Load load, const float* __restrict__ band, float eps, int n1,
   float2* stw = palt::fft_shared();
   float2* lo = stw + (n2 >> 1);
   float2* hi = lo + n1;
-  float2* work = kHi ? hi : hi + n2;
+  float2* work = hi + n2;
   const int ld = row_ld<S>(n2);  // conflict-free half-warps
   const int n = n1 * n2;
   const int c = blockIdx.y;
@@ -2650,18 +2667,16 @@ corr_rows(Load load, const float* __restrict__ band, float eps, int n1,
   }
   const CorrPair src = load.pair(c, (size_t)(n >> 1) + 1);
   stage_split_twiddles<split_where<S>()>(stw, tw, n1, n2, true);
-  const auto hv = stage_split_lo_hi<kHi, split_where<S>()>(lo, hi, tw, n1,
-                                                            n2);
+  stage_split_tables_of<split_where<S>()>(lo, hi, tw, n1, n2);
   corr_gather<S>(src, band, eps, blk, n1, n2, ld, work);
   palt::block_fft<S>(work, 1, ld, n2, stw, -1.0f);
-  store_rows<S>(work, zc + (size_t)c * n, lo, hv, blk, n1, n2, ld);
+  store_rows<S>(work, zc + (size_t)c * n, lo, hi, blk, n1, n2, ld);
 }
 
 // Pass 2 over `rows_c` packed cross rows of load into zc, strips of rs
-// rows (16, 8, 4 or 2; fft_threads(n2, S) threads, 1,024 from 2^20: 512
+// rows (16, 8 or 4; fft_threads(n2, S) threads, 1,024 from 2^20: 512
 // threads of twice the points measured 3-12 % slower from 2^21 to 2^24,
-// PERF.md; the n2-point table in device memory at n2 = 8,192, kHi); at
-// n2 <= 256 (16 rows) two blocks an SM, as K4b's.  keys and count: K2's
+// PERF.md); at n2 <= 256 (16 rows) two blocks an SM, as K4b's.  keys and count: K2's
 // (null for K1 and K9).
 template <class Load>
 cudaError_t corr_rows_launch(Load load, int rows_c, const float* band,
@@ -2669,13 +2684,12 @@ cudaError_t corr_rows_launch(Load load, int rows_c, const float* band,
                              const float2* tw, float2* zc,
                              unsigned long long* keys, unsigned int* count,
                              cudaStream_t s) {
-  return with_split_strip<2>(rs, n2, [&](auto strip, auto hi) {
+  return with_split_strip(rs, [&](auto strip) {
     constexpr int S = decltype(strip)::value;
-    constexpr bool kHi = decltype(hi)::value;
     const dim3 grid(n1 / S, rows_c);
     const int threads = palt::fft_threads(n2, S);
-    const int smem = (n2 / 2 + n1 + (kHi ? 0 : n2) + S * row_ld<S>(n2)) *
-                     (int)sizeof(float2);
+    const int smem =
+        (n2 / 2 + n1 + n2 + S * row_ld<S>(n2)) * (int)sizeof(float2);
     cudaError_t err;
     if constexpr (S == palt::kStrip) {
       if (n2 <= 256) {
@@ -2686,20 +2700,20 @@ cudaError_t corr_rows_launch(Load load, int rows_c, const float* band,
         return cudaGetLastError();
       }
     }
-    err = palt::allow_smem<corr_rows<1024, 1, S, Load, kHi>>();
+    err = palt::allow_smem<corr_rows<1024, 1, S, Load>>();
     if (err != cudaSuccess) return err;
-    corr_rows<1024, 1, S, Load, kHi><<<grid, threads, smem, s>>>(
+    corr_rows<1024, 1, S, Load><<<grid, threads, smem, s>>>(
         load, band, eps, n1, n2, tw, zc, keys, count);
     return cudaGetLastError();
   });
 }
 
-// The row pass of K9's and the GCCs' three-pass split (above 2^26):
-// `corr_rows` at n2 = 8,192 in strips of S = 2 rows (row k1 and its
-// partner n1 - k1; block 0 rows 0 and n1/2), 1,024 threads, the rows
+// The row pass of K9's and the GCCs' three-pass split (above 2^24):
+// `corr_rows` at n2 = 2,048 in strips of S = 2 rows (row k1 and its
+// partner n1 - k1; block 0 rows 0 and n1/2), 256 threads, the rows
 // written back without the conjugate twiddle W_n^{-j2 k1}, which pass B'
 // takes (as `boot_rows_long` leaves it): so it holds no n1-point table
-// (128 KB at 2^27, too many beside the strip) and no n2-point one, only
+// (512 KB at 2^27, too many beside the strip) and no n2-point one, only
 // the n2-point sub-twiddles of its inverse row DFTs, staged from their
 // contiguous half table.  The gather, the whitening and the band are
 // `corr_rows`', and so is the clearing of K2's and K5's argmax keys and
@@ -3323,16 +3337,14 @@ cudaError_t gcc_all_split(const float* x, int scenes, int mics, int len,
   return corr_cols_launch(zc, scenes, num_pairs, n1, n2, tw, out, s);
 }
 
-// The spectra route's first three launches (8,192 <= n <= 2^26): K4a's
+// The spectra route's first three launches (8,192 <= n <= 2^24): K4a's
 // two passes over the mic rows given by load (rows scene * mics + mic)
 // into their natural-order spectra spec (scenes * mics, n/2 + 1) through
 // zm (ceil(scenes * mics / 2), n; may be the loader's buffer), then
 // `corr_rows` with `PairIndexLoad` into the pairs' packed cross rows zc
 // (scenes * couples, n; may be zm, which is dead by then).  keys and
 // count are K2's (null for K1).  cs: the column passes' strip, s2: K4a's
-// pass-2 strip, rs: the row pass's; at n2 = 8,192 K4a's first pass and
-// the row pass read the n2-point table from device memory (kHi,
-// `with_split_strip`).
+// pass-2 strip, rs: the row pass's (`with_split_strip`).
 template <class Load>
 cudaError_t spectra_cross(Load load, int scenes, int mics, const int* pairs_i,
                           const int* pairs_j, int num_pairs,
@@ -3342,8 +3354,8 @@ cudaError_t spectra_cross(Load load, int scenes, int mics, const int* pairs_i,
                           unsigned int* count, cudaStream_t s) {
   const int n2 = n / n1;
   const int rows = scenes * mics;
-  cudaError_t err = with_split_strip(cs, n2, [&](auto strip, auto hi) {
-    return cols_launch<decltype(strip)::value, decltype(hi)::value>(
+  cudaError_t err = with_split_strip(cs, [&](auto strip) {
+    return cols_launch<decltype(strip)::value>(
         load, (rows + 1) / 2, n1, n2, tw, zm, s);
   });
   if (err != cudaSuccess) return err;
@@ -3418,7 +3430,7 @@ cudaError_t window_route(Load load, int route, int scenes, int mics,
       spectra_cross(load, scenes, mics, pairs_i, pairs_j, num_pairs, band,
                     eps, n, n1, cs, s2, rs, tw, zm, spec, zc, keys, count, s);
   if (err != cudaSuccess) return err;
-  return with_split_strip(cs, n / n1, [&](auto strip, auto) {
+  return with_split_strip(cs, [&](auto strip) {
     return window_cols_launch<decltype(strip)::value>(
         zc, scenes, num_pairs, n1, n / n1, wq, tw, win, stats, part, keys,
         count, s);
@@ -3436,7 +3448,7 @@ cudaError_t corr_split(const float2* a, const float2* b, int rows,
       corr_rows_launch(RowPairLoad{a, b, rows}, (rows + 1) / 2, band, eps, n1,
                        n2, rs, tw, zc, nullptr, nullptr, s);
   if (err != cudaSuccess) return err;
-  return with_split_strip(cs, n2, [&](auto strip, auto) {
+  return with_split_strip(cs, [&](auto strip) {
     return corr_cols_launch<decltype(strip)::value>(zc, 1, rows, n1, n2, tw,
                                                     out, s);
   });
@@ -3500,6 +3512,27 @@ cudaError_t finish_launch(float2* z, int rows, int n, int mics, int out_len,
 
 }  // namespace
 
+// K4a's odd last row (one real row x of len <= 2m, `HalfLoad`): its m
+// points z[t] = x[2t] + i*x[2t + 1] through the schedule of a packed row
+// at m (the split's two passes, strips of cs columns and s2 rows; from
+// n1a > 0 the three-pass split's A, B and row pass), the row pass ending
+// in the real spectrum X[0..m] (`half_bin`) -> out: half the points and
+// bytes of a packed row at 2m.
+cudaError_t fft_real_half(HalfLoad load, int m, int n1, int cs, int s2,
+                          int n1a, const float2* tw, float2* buf, float2* out,
+                          const float2* post, cudaStream_t s) {
+  const int n2 = m / n1;
+  const cudaError_t err =
+      n1a > 0 ? long_forward(load, 1, n1a, n1 / n1a, n2, cs, tw, buf, s)
+              : with_split_strip(cs, [&](auto strip) {
+                  return cols_launch<decltype(strip)::value>(load, 1, n1, n2,
+                                                             tw, buf, s);
+                });
+  if (err != cudaSuccess) return err;
+  return (cudaError_t)fft_real_rows_launch<true>(buf, 1, n1, n2, s2, tw, out,
+                                                 s, post);
+}
+
 #define PALT_CHECK()                          \
   do {                                        \
     cudaError_t err_ = cudaGetLastError();    \
@@ -3510,15 +3543,21 @@ extern "C" {
 
 // K4a: x (rows, len) -> out (rows, n/2+1) complex, natural order.  n1 = 1:
 // one block per packed row (n <= 4096); else the four-step split n = n1 *
-// n2 through buf (ceil(rows/2), n) complex: up to 2^26 (n1a = 0) its two
+// n2 through buf (ceil(rows/2), n) complex: up to 2^24 (n1a = 0) its two
 // passes, pass 1 with strips of cs (16, 8, 4 or 2) columns (n1 < n2 above
 // 2^22); above (n1a > 0) the three-pass split's passes A and B, n1 = n1a *
 // n1b, strips of cs = 16 columns; then pass 2 with strips of s2 (2, 4, 8,
-// 16, 32 or 64) rows.
+// 16, 32 or 64) rows.  half = 1: one row x (len <= n) as its half-length
+// transform of n/2 points (`fft_real_half`; n1, the strips, n1a and tw
+// those of n/2's schedule, post the epilogue's table) -> out (n/2 + 1).
 int palt_fft_real(const float* x, int rows, int len, int n, int n1, int cs,
-                  int s2, int n1a, const float2* tw, float2* buf,
-                  float2* out, void* stream) {
+                  int s2, int n1a, int half, const float2* tw,
+                  const float2* post, float2* buf, float2* out,
+                  void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (half)
+    return (int)fft_real_half(HalfLoad{x, len}, n / 2, n1, cs, s2, n1a, tw,
+                              buf, out, post, s);
   const int packed = (rows + 1) / 2;
   const RowLoad load{x, rows, len};
   if (n1 == 1)
@@ -3527,8 +3566,8 @@ int palt_fft_real(const float* x, int rows, int len, int n, int n1, int cs,
   const cudaError_t err =
       n1a > 0
           ? long_forward(load, packed, n1a, n1 / n1a, n2, cs, tw, buf, s)
-          : with_split_strip(cs, n2, [&](auto strip, auto hi) {
-              return cols_launch<decltype(strip)::value, decltype(hi)::value>(
+          : with_split_strip(cs, [&](auto strip) {
+              return cols_launch<decltype(strip)::value>(
                   load, packed, n1, n2, tw, buf, s);
             });
   if (err != cudaSuccess) return (int)err;
@@ -3545,10 +3584,10 @@ int palt_fft_real(const float* x, int rows, int len, int n, int n1, int cs,
 // mics rows of n/2 + 1 complex) and z0 (the cross rows; may be spec0),
 // with strips of cs columns, s2 rows in K4a's pass 2 and rs rows in the
 // row pass; one block a packed cross row through the spectra
-// (`spectra_block`), two launches through spec1; above 2^26 the three-pass
+// (`spectra_block`), two launches through spec1; above 2^24 the three-pass
 // split through the spectra (kRouteLong, n1 = n1a * n1b), six launches
 // through the same buffers: K4a's passes A and B and `fft_real_rows` over
-// the mic rows (strips of cs = 16 columns and s2 = 2 rows), then
+// the mic rows (strips of cs = 16 columns and s2 = 8 rows), then
 // `corr_long` with `PairIndexLoad` (rs = 2 rows).  n1a is 0 off kRouteLong.
 int palt_gcc_all_pairs(const float* x, int scenes, int mics, int len, int n,
                        int n1, int route, int cs, int s2, int rs, int n1a,
@@ -3584,7 +3623,7 @@ int palt_gcc_all_pairs(const float* x, int scenes, int mics, int len, int n,
         load, scenes, mics, pairs_i, pairs_j, num_pairs, band, eps, n, n1, cs,
         s2, rs, tw, spec0, spec1, z0, nullptr, nullptr, s);
     if (err != cudaSuccess) return (int)err;
-    return (int)with_split_strip(cs, n / n1, [&](auto strip, auto) {
+    return (int)with_split_strip(cs, [&](auto strip) {
       return corr_cols_launch<decltype(strip)::value>(z0, scenes, num_pairs,
                                                       n1, n / n1, tw, out, s);
     });
@@ -3602,7 +3641,7 @@ int palt_gcc_all_pairs(const float* x, int scenes, int mics, int len, int n,
 // correlation windows and stats (scenes, num_pairs, 3).  By route
 // (`window_route`): one block a scene (`window_block`), no buffer;
 // `gcc_rows` on the split n = n1 * n2 (`gcc_split`) through spec0 and c0;
-// the split through the spectra and, above 2^26, the three-pass split
+// the split through the spectra and, above 2^24, the three-pass split
 // through them (n1 = n1a * n1b), K1's buffers and strips (spec0 K4a's
 // packed rows, spec1 the spectra, c0 the cross rows; may be spec0); one
 // block a packed cross row through the spectra in spec1; the split routes
@@ -3623,7 +3662,7 @@ int palt_gcc_windowed(const float* x, int scenes, int mics, int len, int n,
 // K4b: s1 (n/2+1) complex, rows x (rows, len) -> out (rows,) maxima of the
 // PHAT correlations between s1's signal and each row.  n1 = 1: one block
 // per packed row (n <= 4096), no buffer; else the split n = n1 * n2
-// through buf (ceil(rows/2), n) in place: up to 2^26 (n1a = 0) its three
+// through buf (ceil(rows/2), n) in place: up to 2^24 (n1a = 0) its three
 // launches, the column passes with strips of cs columns and the row pass
 // with strips of rs rows (16, 8, 4 or 2 each); above (n1a > 0) the
 // three-pass split's five, n1 = n1a * n1b, cs = 16 and rs = 2.
@@ -3677,7 +3716,7 @@ int palt_whiten(const float2* z, long long count, float eps, float2* out,
 // out (rows, n) circular correlations of whiten(a * conj(b)) * band,
 // scaled by 1/n (K1's back half with arbitrary row pairs).  n1 = 1: one
 // block a packed row (`corr_block`), no buffer; n1 > 1: through z
-// (ceil(rows / 2), n), up to 2^26 (n1a = 0) the two launches of the split n
+// (ceil(rows / 2), n), up to 2^24 (n1a = 0) the two launches of the split n
 // = n1 * n2, strips of cs columns and rs rows (16, 8, 4 or 2 each), above
 // (n1a > 0) the three-pass split's three (`corr_long`, n1 = n1a * n1b, cs =
 // 16 and rs = 2).
@@ -3705,7 +3744,7 @@ int palt_whitened_corr(const float2* a, const float2* b, int rows, int n,
 // `render_rows` through zb and z0; the split through the base rows'
 // spectra (`render_spectra`) through zb (may be z0), spec (scenes, n/2 +
 // 1) and z0, with strips of cs columns, s2 rows in K4a's pass 2 and rs
-// rows in the row pass; above 2^26 the three-pass split through them
+// rows in the row pass; above 2^24 the three-pass split through them
 // (`render_long`, n1 = n1a * n1b) through zb (may be z0), spec, z0 and z1,
 // which holds the inverse.  n1a is 0 off kRouteLong.  Off one block the
 // finish follows (`finish_launch`, over groups blocks a packed mic row,

@@ -18,7 +18,7 @@ delay_sum             bfly_delay_sum (:1851)                 memory: 1 to 10*
 whiten                pallas_kernels.phat_whiten_planes (:34) memory: 16 B/bin
 ===================== ====================================== ==================
 
-(*) Above 2^26 points, to ``FFT_LONG_MAX`` (2^30), every transforming
+(*) Above 2^24 points, to ``FFT_LONG_MAX`` (2^30), every transforming
 kernel runs a three-pass split (``long_plan``: K4a 3 launches, K4b and
 K6 5, K9 3, K1's and K2's GCC 6 through the mic rows' spectra, K3's
 render 6 through the base rows' spectra); past it every wrapper raises.
@@ -45,14 +45,13 @@ and the GCCs' ``gcc_rows`` routes run it forward and back in three, the
 middle launch holding rows for both directions; K9, whose input is
 spectra, in two; the GCCs' spectra route K4a's two, then K9's two with a
 pair-indexed loader, and the render's K4a's two into the base rows'
-spectra, then a mix row pass and the column pass; up to 2^26 for all of
-them, whose strips narrow to 8 at 2,048, to 4 at 4,096 and to 2 at
-8,192, ``split_strips``, and whose first column pass and row passes read
-the n2-point table from device memory at 8,192 (``split_hi_points``);
-``split_plan`` gives each launch of K4a's, K4b's and K6's,
-``spectra_plan`` each of the spectra routes', with the row strips'
-bank-spread stride; above 2^26 every one of them splits the n1-point
-columns again into two passes of 16-column strips, ``long_plan``, the
+spectra, then a mix row pass and the column pass; up to 2^24 for all of
+them, whose strips narrow to 8 at 2,048 and to 4 at 4,096,
+``split_strips``; ``split_plan`` gives each launch of K4a's, K4b's and
+K6's, ``spectra_plan`` each of the spectra routes', with the row strips'
+bank-spread stride; above 2^24 every one of them takes rows of 2,048
+points and splits the n1-point columns again into two passes of
+16-column strips, ``long_plan``, the
 row passes of K4b, K6, K9 and the spectra routes leaving their twiddle
 to the inverse column passes), so a transform reads and writes each
 point once per launch (16 bytes a complex point) and is bound by device
@@ -107,28 +106,27 @@ from . import signal as sig_ops
 
 PHAT_EPS = 1e-10
 # K4a: one block holds the packed row up to FFT_REAL_ONE_BLOCK; the
-# four-step split of two on-chip transforms reaches 8192 x 8192
-# (FFT_SPLIT_MAX, 2^26) for every transforming kernel (K4a, K4b, K6 and
-# the spectra routes of K9, K1, K2, K3 and K5), with strips of 8 at
-# 2,048, of 4 at 4,096 and of 2 at 8,192 (``split_strips``); where n2
-# passes SPLIT_HI_SHARED_MAX (2^25, 2^26) the split's row passes and its
-# first column pass read the n2-point table from device memory instead of
-# shared memory (``split_hi_points``); the split's long side is its
+# four-step split of two on-chip transforms reaches 4096 x 4096
+# (FFT_SPLIT_MAX, 2^24) for every transforming kernel (K4a, K4b, K6 and
+# the spectra routes of K9, K1, K2, K3 and K5), with strips of 8 at 2,048
+# and of 4 at 4,096 (``split_strips``); the split's long side is its
 # columns (n1 >= n2) up to SPLIT_COLS_LONG_MAX and its contiguous rows
 # above (``fft_real_split``); the row passes that hold more than one strip
 # reach 1024 x 1024 (STAGE_SPLIT_MAX): the GCCs' ``gcc_rows`` route and
 # the render's ``render_rows``, whose two strips fit to 2^19; elsewhere the
 # GCCs go through their mic rows' spectra (``gcc_route``) and the render
-# through its base rows' (``render_route``).  Above FFT_SPLIT_MAX K4a, K4b
-# and K6 keep its row side and split its columns again (``long_plan``) up
-# to FFT_LONG_MAX (2^30): the largest nfft whose row and scratch fit the
+# through its base rows' (``render_route``).  Above FFT_SPLIT_MAX, where
+# a column strip of 4 and its tables would not fit a block (and 2 columns
+# would read half a 32-byte sector of each row), every transforming kernel
+# takes rows of LONG_N2 points and
+# splits its columns again (``long_plan``) up to FFT_LONG_MAX (2^30): the
+# largest nfft whose row and scratch fit the
 # card (8 GiB a packed row at 2^30) and whose int n every entry point
 # takes; every wrapper raises above it (``_check_pow2``).
 FFT_REAL_ONE_BLOCK = 4096
 SPLIT_COLS_LONG_MAX = 1 << 22
-FFT_SPLIT_MAX = 1 << 26
+FFT_SPLIT_MAX = 1 << 24
 FFT_LONG_MAX = 1 << 30
-SPLIT_HI_SHARED_MAX = 4096
 STAGE_SPLIT_MAX = 1 << 20
 # Rows a split row pass holds (kStrip, csrc/fft.cuh), the strips the
 # split may take, widest first (4 only above 2^22, 2 only above 2^24), the
@@ -138,6 +136,20 @@ ROW_STRIP = 16
 SPLIT_STRIPS = (16, 8, 4, 2)
 BLOCK_POINTS = 16 * 1024
 SMEM_OPTIN = 232448
+# The three-pass split's row side (``fft_real_split`` above FFT_SPLIT_MAX):
+# K4a's row pass holds 4 rows k1 and their partners there (strips of 8),
+# so that its spectra go out in runs of 4 bins, whole 32-byte sectors; the
+# row passes of K4b, K6, K9 and the spectra routes hold row k1 and its
+# partner (LONG_ROW_STRIP), several blocks an SM (``long_plan``).  From
+# HALF_MIN K4a transforms an odd last row (every one-row call) as one
+# half-length complex row (``half_plan``; below it, where a launch's
+# latency outweighs its bytes, the row packs with a zero row as before),
+# on the three-pass split from HALF_LONG_MIN inner points, below
+# FFT_SPLIT_MAX too: its row pass then holds 2,048-point rows.
+LONG_N2 = 2048
+LONG_ROW_STRIP = 2
+HALF_MIN = 1 << 17
+HALF_LONG_MIN = 1 << 23
 # The spread finish (``finish_groups``): an H100's SMs, the blocks of
 # 1,024 threads it aims for (two an SM) and the most blocks a packed mic
 # row takes.
@@ -164,8 +176,8 @@ ROW_CHUNK = 2 * _MAX_GRID_Y
 # 1,000 rows at 2^22 on the split (16.8 GB) keep one launch; 512 rows a
 # launch at 2^23, 256 at 2^24, 128 at 2^25, 64 at 2^26, 32 at 2^27, 16 at
 # 2^28 and 4 at 2^30.  The same cap
-# holds a launch of K1, K2, K3 or K5 (``scene_chunk``): 12 scenes of 4
-# mics at 2^25, 6 at 2^26.
+# holds a launch of K1, K2, K3 or K5 (``scene_chunk``): 8 scenes of 4
+# mics at 2^25, 4 at 2^26.
 SPLIT_SCRATCH_BYTES = 16 << 30
 _lib: Optional[ctypes.CDLL] = None
 
@@ -229,7 +241,7 @@ def _library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_library_path()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         signatures = {
-            "palt_fft_real": [p, i, i, i, i, i, i, i, p, p, p, p],
+            "palt_fft_real": [p, i, i, i, i, i, i, i, i, p, p, p, p, p],
             "palt_noise_bootstrap_peaks": [p, p, i, i, i, i, i, i, i, f, p,
                                            p, p, p],
             "palt_whiten": [p, ctypes.c_longlong, f, p, p],
@@ -261,17 +273,31 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def _twiddle_lengths(nfft: int):
+def _twiddle_lengths(nfft: int, three: bool = False):
     """The lengths L whose half tables ``_twiddles`` holds at nfft, in
     order: nfft, then on the split above 2^20 (``STAGE_SPLIT_MAX`` < nfft
     <= ``FFT_LONG_MAX``) its n1 and n2 (``fft_real_split``), and above
-    ``FFT_SPLIT_MAX`` the three-pass split's n1a and n1b (``long_plan``)."""
+    ``FFT_SPLIT_MAX`` (or with ``three``, ``_long_twiddles``) the
+    three-pass split's n1, n2, n1a and n1b (``three_pass_shape``)."""
+    if three or nfft > FFT_SPLIT_MAX:
+        n1a, n1b, n2 = three_pass_shape(nfft)
+        return [nfft, n1a * n1b, n2, n1a, n1b]
     if nfft <= STAGE_SPLIT_MAX:
         return [nfft]
-    lengths = [nfft] + list(fft_real_split(nfft))
-    if nfft > FFT_SPLIT_MAX:
-        lengths += list(long_plan(nfft)[:2])
-    return lengths
+    return [nfft] + list(fft_real_split(nfft))
+
+
+def tw3_sizes(nfft: int):
+    """(entries, stride) of the three full-circle tables whose product is
+    W_nfft^e on the three-pass split (``Tw3`` in ``csrc/kernels.cu``): with
+    L = log2(nfft) and b = ceil(L / 3), T0[r] = W^r and T1[r] = W^(r 2^b)
+    for r < 2^b, T2[r] = W^(r 2^2b) for r < 2^max(L - 2b, 0): at most
+    1,024 entries each (2^30), 1,536 in all at 2^27, staged in shared
+    memory by pass B."""
+    bits = nfft.bit_length() - 1
+    b = (bits + 2) // 3
+    return [(1 << b, 1), (1 << b, 1 << b),
+            (1 << max(bits - 2 * b, 0), 1 << (2 * b))]
 
 
 # Entries of a half table ``_twiddles`` makes at a time in float64, on up
@@ -281,34 +307,29 @@ _TABLE_CHUNK = 1 << 22
 _TABLE_THREADS = 8
 
 
-def _half_table_part(n: int, m0: int, m1: int) -> np.ndarray:
-    """Entries m0 .. m1 - 1 of the n-point half table exp(-2 pi i m / n),
-    made in float64 and rounded once to float32, the exact zero of cos at
-    m = n/4 kept exact: (m1 - m0, 2)."""
-    ang = -2.0 * np.pi * np.arange(m0, m1) / n
+def _half_table_part(n: int, m0: int, m1: int, step: int = 1) -> np.ndarray:
+    """Entries m0 .. m1 - 1 of the n-point half table exp(-2 pi i m / n)
+    (with ``step``, of exp(-2 pi i step m / n)), made in float64 and
+    rounded once to float32, the exact zeros of cos and sin kept exact:
+    (m1 - m0, 2)."""
+    ang = -2.0 * np.pi * (np.arange(m0, m1) * step % n) / n
     tw = np.stack([np.cos(ang), np.sin(ang)], -1)
     tw[np.abs(tw) < 1e-12] = 0.0
     return tw.astype(np.float32)
 
 
 @functools.lru_cache(maxsize=8)
-def _twiddles(nfft: int, device: str) -> torch.Tensor:
-    """exp(-2*pi*i*m/nfft), m < nfft/2, made in float64 and rounded once to
-    float32, as a (nfft/2, 2) tensor; the exact zero of cos at m = nfft/4
-    is kept exact.  On the split above 2^20 the half tables of n1 and n2
-    follow (``_twiddle_lengths``), made the same way: entry q of the
-    L-point table is entry q * nfft / L of the first, bit for bit (the
-    angles differ by powers of two), read contiguously by the split
-    kernels (``stage_split_twiddles`` and ``stage_split_tables_of`` in
-    ``csrc/kernels.cu``; the n2-point one through the read-only path
-    where n2 passes ``SPLIT_HI_SHARED_MAX``, ``HiTable``; above 2^26
-    ``long_tables``).  Each entry is made as it would be made alone, in
-    parts of ``_TABLE_CHUNK`` entries on host threads."""
+def _table(nfft: int, three: bool, device: str) -> torch.Tensor:
+    """The table of ``_twiddles`` (three = nfft > ``FFT_SPLIT_MAX``) or of
+    ``_long_twiddles`` (three = True) at nfft."""
     from concurrent.futures import ThreadPoolExecutor
-    parts = [(n, m0, min(m0 + _TABLE_CHUNK, n // 2))
-             for n in _twiddle_lengths(nfft)
-             for m0 in range(0, n // 2, _TABLE_CHUNK)]
-    starts = np.cumsum([0] + [m1 - m0 for _, m0, m1 in parts])
+    spans = [(n, n // 2, 1) for n in _twiddle_lengths(nfft, three)]
+    if three:
+        spans += [(nfft, count, step) for count, step in tw3_sizes(nfft)]
+    parts = [(n, m0, min(m0 + _TABLE_CHUNK, count), step)
+             for n, count, step in spans
+             for m0 in range(0, count, _TABLE_CHUNK)]
+    starts = np.cumsum([0] + [m1 - m0 for _, m0, m1, _ in parts])
     table = np.empty((starts[-1], 2), np.float32)
 
     def make(i):
@@ -317,6 +338,31 @@ def _twiddles(nfft: int, device: str) -> torch.Tensor:
     with ThreadPoolExecutor(min(_TABLE_THREADS, len(parts))) as pool:
         list(pool.map(make, range(len(parts))))
     return torch.from_numpy(table).to(device)
+
+
+def _twiddles(nfft: int, device: str) -> torch.Tensor:
+    """exp(-2*pi*i*m/nfft), m < nfft/2, made in float64 and rounded once to
+    float32, as a (nfft/2, 2) tensor; the exact zero of cos at m = nfft/4
+    is kept exact.  On the split above 2^20 the half tables of n1 and n2
+    follow (``_twiddle_lengths``), made the same way: entry q of the
+    L-point table is entry q * nfft / L of the first, bit for bit (the
+    angles differ by powers of two), read contiguously by the split
+    kernels (``stage_split_twiddles`` and ``stage_split_tables_of`` in
+    ``csrc/kernels.cu``).  On the three-pass split (above
+    ``FFT_SPLIT_MAX``) ``_long_twiddles``' table.  Each entry is made as it
+    would be made alone, in parts of ``_TABLE_CHUNK`` entries on host
+    threads (``_table``, cached)."""
+    return _table(nfft, nfft > FFT_SPLIT_MAX, device)
+
+
+def _long_twiddles(nfft: int, device: str) -> torch.Tensor:
+    """The table of the three-pass split at nfft (``three_pass_shape``), as
+    ``long_tables`` in ``csrc/kernels.cu`` reads it: the nfft-, n1-, n2-,
+    n1a- and n1b-point half tables, then the three tables of
+    ``tw3_sizes`` (pass B's W_nfft^e).  ``_twiddles`` above
+    ``FFT_SPLIT_MAX``; K4a's half-length transform from ``HALF_LONG_MIN``
+    too."""
+    return _table(nfft, True, device)
 
 
 def _check_pow2(nfft: int) -> None:
@@ -408,7 +454,7 @@ def _split_n1(nfft: int) -> int:
     """n1 of K4a's, K4b's and K6's schedule at nfft: 1, one block, up to
     ``FFT_REAL_ONE_BLOCK``; the four-step split of ``fft_real_split``
     above, its n1-point columns split again into two passes above
-    ``FFT_SPLIT_MAX`` (2^26, ``long_plan``)."""
+    ``FFT_SPLIT_MAX`` (2^24, ``long_plan``)."""
     return fft_real_split(nfft)[0]
 
 
@@ -429,7 +475,7 @@ def corr_schedule(nfft: int) -> int:
 
 def _corr_strips(nfft: int):
     """(column strip, row strip) of K9's schedule at nfft: (0, 0) in one
-    block, ``spectra_plan``'s column and row passes' to 2^26, ``long_plan``'s
+    block, ``spectra_plan``'s column and row passes' to 2^24, ``long_plan``'s
     ``corr_cols`` and ``corr_rows`` above."""
     if nfft <= FFT_REAL_ONE_BLOCK:
         return 0, 0
@@ -441,16 +487,17 @@ def _corr_strips(nfft: int):
 
 
 def _split_strips(n1: int, nfft: int):
-    """The strips (columns, rows) K4a's, K4b's and K6's schedule n1 passes
-    to its entry point: ``split_strips`` on the split up to
-    ``FFT_SPLIT_MAX``, above it the column passes' and ``boot_rows_long``'s
-    (``long_plan``), (0, 0) (unused) in one block."""
+    """The strips (columns, rows) K4b's and K6's schedule n1 passes to
+    its entry point: ``split_strips``' columns and ``boot_strip``'s rows
+    on the split up to ``FFT_SPLIT_MAX``, above it the column passes' and
+    ``boot_rows_long``'s (``long_plan``), (0, 0) (unused) in one block."""
     if n1 == 1:
         return 0, 0
     if nfft > FFT_SPLIT_MAX:
         plan = long_plan(nfft)
         return plan.cols_a.strip, plan.boot_rows.strip
-    return split_strips(n1, nfft // n1)
+    n2 = nfft // n1
+    return split_strips(n1, n2)[0], boot_strip(n1, n2)
 
 
 def _pass_scratch(n1: int, packed: int, nfft: int, device):
@@ -491,22 +538,22 @@ def fft_real_split(nfft: int):
     2^22, where the strips narrow to 8 (``split_strips``); above, the long
     side goes to the contiguous rows, n1 = 2^floor(log2(nfft) / 2) <= n2:
     2048 x 4096 at 2^23 (column strips of 8 still read 64 bytes a row, row
-    strips of 4), 4096 x 4096 at 2^24 (strips of 4), 4096 x 8192 at 2^25
-    (4 columns, 2 rows) and 8192 x 8192 at ``FFT_SPLIT_MAX`` (2^26,
-    strips of 2).  ``SPLIT_COLS_LONG_MAX`` picks only that orientation:
+    strips of 4) and 4096 x 4096 at ``FFT_SPLIT_MAX`` (2^24: strips of 4,
+    one 32-byte sector a row).  ``SPLIT_COLS_LONG_MAX`` picks only that
+    orientation:
     every transforming kernel runs the split up to ``FFT_SPLIT_MAX``.
     Above, to ``FFT_LONG_MAX`` (2^30), the three-pass split of every
-    transforming kernel keeps that row side, n2 = 8,192 (a row pass's strip of
-    row k1 and its partner holds ``BLOCK_POINTS``), and n1 = nfft / 8,192,
-    16,384 at 2^27 to 131,072 at 2^30, whose columns ``long_plan`` splits
-    again."""
+    transforming kernel takes rows of ``LONG_N2`` = 2,048 points (K4a's row
+    pass holds 4 rows k1 and their partners, ``BLOCK_POINTS``, and writes
+    its spectra in runs of 4 bins) and n1 = nfft / 2,048, 65,536 at 2^27
+    to 2^19 at 2^30, whose columns ``long_plan`` splits again."""
     if nfft <= FFT_REAL_ONE_BLOCK:
         return 1, nfft
     if nfft > FFT_SPLIT_MAX:
         if nfft > FFT_LONG_MAX:
             raise ValueError(f"fft_real_split: nfft {nfft} passes "
                              f"FFT_LONG_MAX (2^30)")
-        return nfft // (BLOCK_POINTS // 2), BLOCK_POINTS // 2
+        return nfft // LONG_N2, LONG_N2
     short = 1 << ((nfft.bit_length() - 1) // 2)
     if nfft > SPLIT_COLS_LONG_MAX:
         return short, nfft // short
@@ -520,7 +567,7 @@ def fft_real_rows_strip(n2: int, packed: int) -> int:
     memory holds, where there are enough packed rows (>= 64) that fewer
     blocks still fill the card; where 16 rows would pass ``BLOCK_POINTS``
     the most it holds, 8 at n2 = 2,048 (2^22), 4 at 4,096 (2^23, 2^24) and
-    2 at 8,192 (2^25, 2^26: one row k1 and its partner); else 16 (a single
+    8 at 2,048 on the three-pass split; else 16 (a single
     row's call is bound by latency, not bytes)."""
     if n2 * ROW_STRIP > BLOCK_POINTS:
         return BLOCK_POINTS // n2
@@ -529,49 +576,53 @@ def fft_real_rows_strip(n2: int, packed: int) -> int:
     return 64 if n2 <= 256 else 32
 
 
-def split_hi_points(n2: int) -> int:
-    """Points of the split's n2-point table ``hi`` that a split kernel
-    stages in shared memory: n2 up to ``SPLIT_HI_SHARED_MAX`` (4,096:
-    every shape up to 2^24), else none (2^25, 2^26: the first column pass
-    ``fft_real_cols`` and the row passes ``boot_rows``, ``corr_rows`` and
-    ``render_spec_rows`` read it from the contiguous n2-point half table
-    of ``_twiddles`` in device memory)."""
-    return n2 if n2 <= SPLIT_HI_SHARED_MAX else 0
-
-
 def _row_pass_smem(n1: int, n2: int, strips: int,
-                   strip: int = ROW_STRIP, hi: Optional[int] = None) -> int:
+                   strip: int = ROW_STRIP) -> int:
     """Bytes of shared memory of a split row pass (``render_rows``,
     ``gcc_rows``, ``boot_rows``) that holds ``strips`` strips of ``strip``
     rows of n2 points (sequence stride n2 + 1) and the twiddle tables (n2/2
-    + n1 + ``hi`` complex; ``hi`` = n2 by default)."""
-    hi = n2 if hi is None else hi
-    return 8 * (n2 // 2 + n1 + hi + strips * strip * (n2 + 1))
+    + n1 + n2 complex)."""
+    return 8 * (n2 // 2 + n1 + n2 + strips * strip * (n2 + 1))
 
 
 def split_strips(n1: int, n2: int):
-    """(columns a strip of a column pass holds, rows a strip of the row
-    pass holds) on the split n1 x n2 (K4a's, K4b's, K6's and the spectra
-    routes'): for each, the
-    widest of ``SPLIT_STRIPS`` (16, 8, 4, 2) whose strip holds at most
-    ``BLOCK_POINTS`` points (``block_fft``'s kElems x 1024) and whose pass
-    fits one block's shared memory (``SMEM_OPTIN``): the column pass's
-    n1/2 sub-twiddles, n1 + ``split_hi_points`` split tables and n1 x S
-    strip (``fft_real_cols``; ``boot_cols`` holds less), and
-    ``_row_pass_smem`` of one strip with those tables (``boot_rows``;
-    K4a's own row pass takes ``fft_real_rows_strip``).  (16, 16) up to
-    1024 x 1024, so every shape up to 2^20 keeps its strips; (8, 16) at
+    """(columns a strip of a column pass holds, rows a strip of the spectra
+    routes' row pass holds) on the split n1 x n2 (K4a's, K4b's, K6's and
+    the spectra routes'): for each, the widest of ``SPLIT_STRIPS`` (16, 8,
+    4, 2) whose strip holds at most ``BLOCK_POINTS`` points
+    (``block_fft``'s kElems x 1024) and whose pass fits one block's shared
+    memory (``SMEM_OPTIN``): the column pass's n1/2 sub-twiddles, n1 + n2
+    split tables and n1 x S strip (``fft_real_cols``; ``boot_cols`` holds
+    less), and ``_row_pass_smem`` of one strip with those tables
+    (``corr_rows``, ``render_spec_rows``; K4a's own row pass takes
+    ``fft_real_rows_strip``, K4b's and K6's ``boot_strip``).  (16, 16) up
+    to 1024 x 1024, so every shape up to 2^20 keeps its strips; (8, 16) at
     2048 x 1024 (2^21) and (8, 8) at 2048 x 2048 (2^22): 164-172 KB a
     block; (8, 4) at 2048 x 4096 (2^23: 188,416 and 196,640 bytes) and
     (4, 4) at 4096 x 4096 (2^24: 212,992 and 213,024), whose column
-    strips read one 32-byte sector a row; without the n2-point table in
-    shared memory (4, 2) at 4096 x 8192 (2^25: 180,224 and 196,624) and
-    (2, 2) at 8192 x 8192 (2^26: 229,376 and 229,392): with it neither
-    fits (245,760 and 262,160 bytes at 2^25)."""
-    hi = split_hi_points(n2)
+    strips read one 32-byte sector a row.  Past 2^24 a column pass's
+    tables and a strip of 4 columns would not fit a block (the three-pass
+    split takes over, ``long_plan``)."""
     where = f"the split {n1} x {n2}"
-    return (_widest(n1, lambda s: 8 * (n1 // 2 + n1 + hi + n1 * s), where),
-            _widest(n2, lambda s: _row_pass_smem(n1, n2, 1, s, hi), where))
+    return (_widest(n1, lambda s: 8 * (n1 // 2 + n1 + n2 + n1 * s), where),
+            _widest(n2, lambda s: _row_pass_smem(n1, n2, 1, s), where))
+
+
+def boot_strip(n1: int, n2: int) -> int:
+    """Rows a strip of K4b's and K6's row pass (``boot_rows``) holds on
+    the split n1 x n2: 16 at n2 <= 256 (two blocks of 256 threads an SM),
+    else the widest of ``SPLIT_STRIPS`` of at most ``BLOCK_POINTS`` / 2
+    points, so that its fft_threads are at most 512 with up to 128
+    registers each and no spill (16 rows at n2 = 512, 8 at 1,024, 4 at
+    2,048, 2 at 4,096), whose pass fits a block's shared memory."""
+    if n2 <= 256:
+        return ROW_STRIP
+    for strip in SPLIT_STRIPS:
+        if (n2 * strip <= BLOCK_POINTS // 2
+                and _row_pass_smem(n1, n2, 1, strip) <= SMEM_OPTIN):
+            return strip
+    raise ValueError(f"no strip of {SPLIT_STRIPS} fits boot_rows at "
+                     f"{n1} x {n2}")
 
 
 def _widest(length: int, smem, where: str) -> int:
@@ -622,21 +673,18 @@ def split_plan(nfft: int, packed: int = 1) -> SplitPlan:
     points in at most ``SMEM_OPTIN`` bytes, and no launch takes a
     thread-block cluster: clusters that read whole sectors of each row
     measured 30-40 % slower on an H100 (PERF.md).  K4b's and K6's row pass
-    runs 512 threads a block above 2^20 (``boot_rows_launch``).  At 2^25
-    and 2^26 (n2 = 8,192) the column pass and the row pass hold no
-    n2-point table (``split_hi_points``): 180,224 / 229,376 bytes for the
-    column pass, 163,968 for K4a's pass 2, 196,736 / 229,504 for
-    ``boot_rows`` and 147,584 / 163,968 for ``boot_cols``."""
+    holds ``boot_strip``'s rows in at most 512 threads above n2 = 256
+    (``boot_rows_launch``)."""
     n1, n2 = fft_real_split(nfft)
     if n1 == 1 or nfft > FFT_SPLIT_MAX:
         raise ValueError(f"split_plan: nfft {nfft} is not on the split")
-    cs, rs = split_strips(n1, n2)
+    cs = split_strips(n1, n2)[0]
+    rs = boot_strip(n1, n2)
     s2 = fft_real_rows_strip(n2, packed)
-    hi = split_hi_points(n2)
     return SplitPlan(
-        SplitPass(cs, 8 * (n1 // 2 + n1 + hi + n1 * cs)),
+        SplitPass(cs, 8 * (n1 // 2 + n1 + n2 + n1 * cs)),
         SplitPass(s2, 8 * (n2 // 2 + s2 * row_ld(s2, n2))),
-        SplitPass(rs, 8 * (n2 // 2 + n1 + hi + rs * row_ld(rs, n2))),
+        SplitPass(rs, 8 * (n2 // 2 + n1 + n2 + rs * row_ld(rs, n2))),
         SplitPass(cs, 8 * (n1 // 2 + n1 * cs) + 128))
 
 
@@ -656,25 +704,24 @@ class SpectraPlan(NamedTuple):
 
 def spectra_plan(nfft: int, packed: int = 1) -> SpectraPlan:
     """Each launch of the spectra routes at nfft (8,192 to
-    ``FFT_SPLIT_MAX``, 2^26) for ``packed`` packed rows in K4a's passes:
+    ``FFT_SPLIT_MAX``, 2^24) for ``packed`` packed rows in K4a's passes:
     K4a's two (``split_plan``'s ``cols`` and ``rows``); the row pass, one
     strip of ``split_strips``' rows at the bank-spread stride ``row_ld``
-    with the n1-point table and the n2-point one where it stays in shared
-    memory (n2/2 + n1 + ``split_hi_points`` complex, the bytes of
-    ``boot_rows``: 196,736 / 229,504 bytes at 2^25 / 2^26, strips of 2
-    rows, the n2-point table read from device memory); the column pass,
-    ``split_strips``' columns and the n1/2 sub-twiddles (``window_cols``
-    adds 257 static bytes; 4 columns at n1 = 4,096, 147,456 bytes, and 2
-    at 8,192, 163,840).  Above 2^20 these kernels read their tables from
-    the contiguous copies of ``_twiddles``; the row pass keeps
-    ``fft_threads`` = 1,024 threads a block there (512 of twice the
-    points, as ``boot_rows``, measured 3-12 % slower on an H100;
-    PERF.md).  Above 2^26 ``split_plan`` raises: every transforming
+    with the n1- and n2-point tables (n2/2 + n1 + n2 complex: 213,120
+    bytes at 2^24, strips of 4 rows); the column pass, ``split_strips``'
+    columns and the n1/2 sub-twiddles (``window_cols`` adds 257 static
+    bytes; 4 columns at n1 = 4,096, 147,456 bytes).  Above 2^20 these
+    kernels read their tables from the contiguous copies of
+    ``_twiddles``; the row pass keeps ``fft_threads`` = 1,024 threads a
+    block there (512 of twice the points measured 3-12 % slower on an
+    H100; PERF.md).  Above 2^24 ``split_plan`` raises: every transforming
     kernel runs ``long_plan``'s split there."""
     plan = split_plan(nfft, packed)
     n1, n2 = fft_real_split(nfft)
-    cs = plan.cols.strip
-    return SpectraPlan(plan.cols, plan.rows, plan.boot_rows,
+    cs, rs = split_strips(n1, n2)
+    return SpectraPlan(plan.cols, plan.rows,
+                       SplitPass(rs, 8 * (n2 // 2 + n1 + n2
+                                          + rs * row_ld(rs, n2))),
                        SplitPass(cs, 8 * (n1 // 2 + n1 * cs)))
 
 
@@ -699,48 +746,113 @@ class LongPlan(NamedTuple):
     corr_cols: SplitPass
 
 
-def long_plan(nfft: int, packed: int = 1) -> LongPlan:
-    """Each launch of the three-pass split of every transforming kernel at
-    nfft (``FFT_SPLIT_MAX`` < nfft <= ``FFT_LONG_MAX``: 2^27 to 2^30) for
-    ``packed`` packed rows a launch.  The split's n1 x n2
-    (``fft_real_split``: n2 = 8,192) with n1 = n1a * n1b, n1a =
-    2^ceil(log2(n1) / 2): 128 x 128 at 2^27, 256 x 128 at 2^28, 256 x 256
-    at 2^29, 512 x 256 at 2^30.  The column passes' strip is the widest of
-    ``SPLIT_STRIPS`` that both passes hold within ``BLOCK_POINTS`` points
-    and ``SMEM_OPTIN`` bytes (their n1a/2 or n1b/2 sub-twiddles and the
-    strip; ``long_cols_max`` 128 bytes more): 16 columns, 128 bytes of
-    each row read or written, at every length (one column would be a
-    quarter of a 32-byte sector at 2^30 on the two-pass split).  The row
-    passes as at 2^26: ``fft_real_rows_strip``'s 2 rows (row k1 and its
-    partner) at the stride ``row_ld``, 163,968 bytes, and
-    ``boot_rows_long``'s, ``corr_rows_long``'s and
-    ``render_spec_rows_long``'s 2 rows (in 512, 1,024 and 1,024 threads),
-    the same bytes (no n1- or n2-point table: pass B' takes the inverse
-    twiddle); ``long_cols_corr``, ``long_cols_window`` and
-    ``long_cols_render`` pass A's strip and bytes."""
-    if not FFT_SPLIT_MAX < nfft <= FFT_LONG_MAX:
-        raise ValueError(f"long_plan: nfft {nfft} is not on the three-pass "
-                         f"split")
-    n1, n2 = fft_real_split(nfft)
+def three_pass_shape(nfft: int):
+    """(n1a, n1b, n2) of the three-pass split at nfft: rows of n2 =
+    ``LONG_N2`` points and n1 = nfft / n2 = n1a * n1b, n1a =
+    2^ceil(log2(n1) / 2): 256 x 256 x 2,048 at 2^27, 512 x 256 at 2^28,
+    512 x 512 at 2^29, 1,024 x 512 at 2^30, 256 x 128 at 2^26."""
+    n1 = nfft // LONG_N2
     n1a = 1 << (n1.bit_length() // 2)
-    n1b = n1 // n1a
+    return n1a, n1 // n1a, LONG_N2
+
+
+def _three_pass_plan(nfft: int, packed: int) -> LongPlan:
+    """``long_plan``'s launches at any nfft of ``three_pass_shape``."""
+    n1a, n1b, n2 = three_pass_shape(nfft)
 
     def cols_smem(length, strip):
         return 8 * (length // 2 + length * strip)
 
     where = f"the three-pass split {n1a} x {n1b} x {n2}"
+    tw3 = sum(count for count, _ in tw3_sizes(nfft))
     cs = min(_widest(n1a, lambda s: cols_smem(n1a, s) + 128, where),
-             _widest(n1b, lambda s: cols_smem(n1b, s), where))
+             _widest(n1b, lambda s: cols_smem(n1b, s) + 8 * tw3, where))
     s2 = fft_real_rows_strip(n2, packed)
 
     def rows_smem(strip):
         return 8 * (n2 // 2 + strip * row_ld(strip, n2))
 
-    rs = _widest(n2, rows_smem, where)
+    rs = LONG_ROW_STRIP
     cols_a = SplitPass(cs, cols_smem(n1a, cs))
-    return LongPlan(n1a, n1b, cols_a, SplitPass(cs, cols_smem(n1b, cs)),
+    return LongPlan(n1a, n1b, cols_a,
+                    SplitPass(cs, cols_smem(n1b, cs) + 8 * tw3),
                     SplitPass(s2, rows_smem(s2)), SplitPass(rs, rows_smem(rs)),
                     SplitPass(rs, rows_smem(rs)), cols_a)
+
+
+def long_plan(nfft: int, packed: int = 1) -> LongPlan:
+    """Each launch of the three-pass split of every transforming kernel at
+    nfft (``FFT_SPLIT_MAX`` < nfft <= ``FFT_LONG_MAX``: 2^26 to 2^30) for
+    ``packed`` packed rows a launch.  The split's n1 x n2
+    (``fft_real_split``: n2 = ``LONG_N2`` = 2,048) with n1 = n1a * n1b
+    (``three_pass_shape``).  The column passes' strip is the widest of
+    ``SPLIT_STRIPS`` that both passes hold within ``BLOCK_POINTS`` points
+    and ``SMEM_OPTIN`` bytes (their n1a/2 or n1b/2 sub-twiddles and the
+    strip; ``long_cols_max`` 128 bytes more, pass B the three tables of
+    ``tw3_sizes``): 16 columns, 128 bytes of each row read or written, at
+    every length.  K4a's row
+    pass ``fft_real_rows`` holds ``fft_real_rows_strip``'s 8 rows (4 rows
+    k1 and their partners) at the stride ``row_ld``, 139,392 bytes, and
+    writes runs of 4 bins; ``boot_rows_long``, ``corr_rows_long`` and
+    ``render_spec_rows_long`` hold ``LONG_ROW_STRIP`` = 2 rows (row k1 and
+    its partner) in 256 threads, 41,088 bytes (no n1- or n2-point table:
+    pass B' takes the inverse twiddle), several blocks an SM;
+    ``long_cols_corr``, ``long_cols_window`` and ``long_cols_render`` pass
+    A's strip and bytes."""
+    if not FFT_SPLIT_MAX < nfft <= FFT_LONG_MAX:
+        raise ValueError(f"long_plan: nfft {nfft} is not on the three-pass "
+                         f"split")
+    return _three_pass_plan(nfft, packed)
+
+
+class HalfPlan(NamedTuple):
+    """K4a's half-length transform of one real row at nfft (``half_plan``):
+    the inner length m = nfft / 2 and, as ``palt_fft_real`` takes them,
+    n1 (1 in one block), the column strip, the row pass's strip and n1a
+    (0 off the three-pass split)."""
+    m: int
+    n1: int
+    cols: int
+    rows: int
+    n1a: int
+
+
+def half_plan(nfft: int) -> HalfPlan:
+    """The schedule of K4a's odd last row at nfft (from ``HALF_MIN`` in
+    ``fft_real``; past 2 ``FFT_REAL_ONE_BLOCK`` to ``FFT_LONG_MAX``
+    here): z[t] = x[2t] + i x[2t + 1], t < m = nfft / 2, transformed as
+    one m-point complex row, the real spectrum X[k] = E[k] + W_nfft^k
+    O[k] (E, O the spectra of the even and odd samples, split from Z[k]
+    and Z[m - k]) in the row pass's epilogue: on m's split
+    (``split_plan(m, 1)``) below ``HALF_LONG_MIN``; from it on m's
+    three-pass split (``_three_pass_plan(m, 1)``, 2,048-point rows whose
+    row pass writes runs of 4 bins).  Half the points of the packed row
+    that one real row would take, in the launches of the packed row's
+    schedule at m."""
+    m = nfft // 2
+    if m <= FFT_REAL_ONE_BLOCK:
+        raise ValueError(f"half_plan: nfft {nfft} is not past one block")
+    if m < HALF_LONG_MIN:
+        plan = split_plan(m, 1)
+        return HalfPlan(m, fft_real_split(m)[0], plan.cols.strip,
+                        plan.rows.strip, 0)
+    plan = _three_pass_plan(m, 1)
+    return HalfPlan(m, m // LONG_N2, plan.cols_a.strip, plan.rows.strip,
+                    plan.n1a)
+
+
+@functools.lru_cache(maxsize=8)
+def _half_post(nfft: int, device: str) -> torch.Tensor:
+    """The table of the half-length transform's epilogue on the split and
+    the three-pass split at nfft (``half_plan``; n1 x n2 = m's): W_nfft^k1
+    for k1 < n1, then W_(2 n2)^k2 for k2 < n2, so that W_nfft^k = W^k1 *
+    W_(2 n2)^k2 at k = k1 + n1 k2 < m; each entry made in float64 and
+    rounded once (``_half_table_part``)."""
+    plan = half_plan(nfft)
+    n2 = plan.m // plan.n1
+    table = np.concatenate([_half_table_part(nfft, 0, plan.n1),
+                            _half_table_part(2 * n2, 0, n2)])
+    return torch.from_numpy(table).to(device)
 
 
 def _gcc_block_smem(nfft: int, mics: int) -> int:
@@ -784,13 +896,12 @@ def gcc_route(nfft: int, mics: int) -> GccRoute:
       each packed mic row a scene's mics can span ((mics + 1) // 2) and
       one for the output, fit one block's shared memory (``SMEM_OPTIN``);
       never at 2^20, where two strips of 16 x 1,025 points pass it;
-    - elsewhere up to ``FFT_SPLIT_MAX`` (2^26), the split through the mic
+    - elsewhere up to ``FFT_SPLIT_MAX`` (2^24), the split through the mic
       rows' spectra at any mic count (K4a's two passes, ``corr_rows`` with
       the pair-indexed loader, ``corr_cols`` or ``window_cols``), with the
       strips of ``spectra_plan``: 16 and 16 up to 2^20, 8 columns from n1
       = 2,048 and 8 rows at n2 = 2,048, 4 rows at n2 = 4,096 (2^23), 4
-      columns at n1 = 4,096 (2^24, 2^25), 2 rows at n2 = 8,192 (2^25,
-      2^26) and 2 columns at n1 = 8,192 (2^26);
+      columns at n1 = 4,096 (2^24);
     - above, to ``FFT_LONG_MAX`` (2^30), the three-pass split through the
       mic rows' spectra at any mic count (``ROUTE_LONG``: K4a's passes A,
       B and ``fft_real_rows`` into the spectra, ``corr_rows_long`` with
@@ -838,13 +949,12 @@ def render_route(nfft: int) -> GccRoute:
       row's) fit one block's shared memory (``SMEM_OPTIN``: to 2^19),
       the four-step split nfft = n1 * n2 of ``fft_real_split`` with
       ``render_rows`` (``ROUTE_ROWS``);
-    - elsewhere up to ``FFT_SPLIT_MAX`` (2^26), the split through the
+    - elsewhere up to ``FFT_SPLIT_MAX`` (2^24), the split through the
       base rows' spectra (``ROUTE_SPECTRA``): K4a's two passes, the
       one-strip mix row pass ``render_spec_rows`` and ``render_cols``,
       with the strips of ``spectra_plan`` (16 and 16 at 2^20, 8 columns
       from n1 = 2,048 and 8 rows at n2 = 2,048, 4 rows at n2 = 4,096, 4
-      columns at n1 = 4,096, 2 rows at n2 = 8,192 and 2 columns at n1 =
-      8,192);
+      columns at n1 = 4,096);
     - above, to ``FFT_LONG_MAX`` (2^30), the three-pass split through the
       base rows' spectra (``ROUTE_LONG``: K4a's three passes, the mix row
       pass ``render_spec_rows_long``, B' and ``long_cols_render``), with
@@ -867,7 +977,7 @@ def finish_groups(nfft: int, rows: int) -> int:
     ``rows`` mic rows at nfft: 1 (``render_finalize``, a block of 1,024
     threads a mic row) up to 2^19 and wherever the rows fill the card
     (``FINISH_SMS`` or more); else, on the render's spectra routes (the
-    split from 2^20 and the three-pass split above 2^26), enough for
+    split from 2^20 and the three-pass split above 2^24), enough for
     ``FINISH_BLOCKS`` blocks (``finish_spread``), at most
     ``FINISH_MAX_GROUPS``.  The rule reads the shape only, not the card,
     so that a call's bits do not depend on the card it runs on."""
@@ -884,7 +994,7 @@ def _window_scratch(rows: int, nfft: int, route: GccRoute, device):
     and the per-block sums of |corr| (rows * 2 * blocks float32: a block
     a column strip of ``window_cols``, n2 / strip, the strip 16 on
     ``gcc_rows`` and the route's on the spectra; of ``long_cols_window``
-    n1b * n2 / 16, 65,536 at 2^27); Nones in one block."""
+    n1b * n2 / 16, 32,768 at 2^27); Nones in one block."""
     if route.kind not in (ROUTE_ROWS, ROUTE_SPECTRA, ROUTE_LONG):
         return None, None, None
     if route.kind == ROUTE_LONG:
@@ -951,17 +1061,22 @@ def fft_real(x: torch.Tensor, nfft: int) -> torch.Tensor:
     Replaces ``bfly_fft_real`` (pyaudiolocalization_tpu/ops/pallas_fft.py:
     685), whose output is an opaque bit-reversed (N2, 128) plane layout.
     Two rows share each complex transform.  By length (``_split_n1``): up
-    to nfft = 4096 one launch, a block per packed row; up to 2^26 a
+    to nfft = 4096 one launch, a block per packed row; up to 2^24 a
     four-step split (``fft_real_split``) of two on-chip launches, the
     columns' DFTs with the twiddle (strips of 16 columns, 8 at n1 = 2,048,
-    4 at 4,096, 2 at 8,192: ``split_strips``), then the rows' DFTs with
+    4 at 4,096: ``split_strips``), then the rows' DFTs with
     the two real spectra split in the epilogue (``fft_real_rows_strip``;
     the launches as ``split_plan`` gives them); above, to 2^30, three:
     the columns' DFTs in two passes of 16-column strips (n1 = n1a * n1b,
-    ``long_plan``), then the rows' as at 2^26.  Bound by device memory:
-    the rows' read, one write and one read of the packed intermediate (a
-    pass) and the spectra's write.  A batch beyond ``_launch_rows`` rows
-    (``ROW_CHUNK``, or the scratch's byte cap) launches in chunks."""
+    ``long_plan``), then the rows' in strips of 4 rows k1 and their
+    partners (runs of 4 bins).  From ``HALF_MIN`` an odd last row (every
+    one-row call) is one half-length complex transform (``half_plan``):
+    its even and odd samples as one nfft/2-point row on that length's
+    schedule, the real spectrum formed in the row pass's epilogue, one
+    launch more where the call also has pairs of rows.  Bound by device memory: the rows' read,
+    one write and one read of the packed intermediate (a pass) and the
+    spectra's write.  A batch beyond ``_launch_rows`` rows (``ROW_CHUNK``,
+    or the scratch's byte cap) launches in chunks."""
     if _use_plain(x):
         return fft_real_plain(x, nfft)
     _check_contiguous("fft_real", x)
@@ -975,23 +1090,41 @@ def fft_real(x: torch.Tensor, nfft: int) -> torch.Tensor:
     dev = x.device
     out = torch.empty((rows, nfft // 2 + 1), dtype=torch.complex64,
                       device=dev)
+    pairs = rows - rows % 2 if nfft >= HALF_MIN else rows
     n1 = _split_n1(nfft)
     n1a = _long_n1a(nfft)
-    chunks = _row_chunks(rows, _launch_rows(n1, nfft))
+    chunks = _row_chunks(pairs, _launch_rows(n1, nfft))
     packed = (chunks[0][1] + 1) // 2 if chunks else 0
-    buf = _pass_scratch(n1, packed, nfft, dev)
-    tw = _twiddles(nfft, str(dev))
+    buf = _pass_scratch(n1, packed, nfft, dev) if chunks else None
+    tw = _twiddles(nfft, str(dev)) if chunks else None
     for r0, r1 in chunks:
         cols, s2 = _fft_real_strips(nfft, (r1 - r0 + 1) // 2)
         _launch("fft_real", dev, lib.palt_fft_real, x[r0].data_ptr(),
-                r1 - r0, length, nfft, n1, cols, s2, n1a, tw.data_ptr(),
-                _ptr(buf), out[r0].data_ptr())
+                r1 - r0, length, nfft, n1, cols, s2, n1a, 0, tw.data_ptr(),
+                None, _ptr(buf), out[r0].data_ptr())
+    if pairs < rows:
+        _fft_real_half(lib, x[rows - 1], nfft, out[rows - 1])
     return out
+
+
+def _fft_real_half(lib, row: torch.Tensor, nfft: int,
+                   out: torch.Tensor) -> None:
+    """One launch of K4a's half-length transform (``half_plan``) of the
+    real row ``row`` (len <= nfft) into its spectrum ``out`` (nfft/2 + 1):
+    m's table (``_long_twiddles`` on its three-pass split), the
+    epilogue's (``_half_post``) and one packed row of scratch."""
+    dev = row.device
+    plan = half_plan(nfft)
+    tw = (_long_twiddles if plan.n1a else _twiddles)(plan.m, str(dev))
+    post, buf = _half_post(nfft, str(dev)), _scratch(1, plan.m, dev)
+    _launch("fft_real", dev, lib.palt_fft_real, row.data_ptr(), 1,
+            row.shape[0], nfft, plan.n1, plan.cols, plan.rows, plan.n1a, 1,
+            tw.data_ptr(), post.data_ptr(), buf.data_ptr(), out.data_ptr())
 
 
 def _fft_real_strips(nfft: int, packed: int):
     """(column strip, pass-2 strip) of K4a's launch over ``packed`` packed
-    rows: ``split_plan``'s up to 2^26, ``long_plan``'s above (its column
+    rows: ``split_plan``'s up to 2^24, ``long_plan``'s above (its column
     passes' strip), (0, 0) in one block."""
     if nfft <= FFT_REAL_ONE_BLOCK:
         return 0, 0
@@ -1033,13 +1166,12 @@ def whitened_corr(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor,
     1/n and the split into the two rows.  By length (``corr_schedule``):
     up to ``FFT_REAL_ONE_BLOCK`` (4,096) one launch, a block per packed row
     holding it in shared memory, no scratch; up to ``FFT_SPLIT_MAX``
-    (2^26) two launches over one scratch buffer on K4b's four-step split
+    (2^24) two launches over one scratch buffer on K4b's four-step split
     — a row pass that gathers each strip's bins of ``a`` and ``b``,
     whitens and runs the inverse row DFTs, and K1's column pass, whose
     inverse column DFTs write the rows in natural order (the spectra
     routes' last two launches, ``spectra_plan``: strips of 16 rows and
-    columns, 8 at 2,048, 4 at 4,096, 2 at 8,192, where the row pass reads
-    the n2-point table from device memory); above, to ``FFT_LONG_MAX``
+    columns, 8 at 2,048, 4 at 4,096); above, to ``FFT_LONG_MAX``
     (2^30), three launches over that buffer on the three-pass split
     (``long_plan``, n1 = n1a * n1b): the row pass in strips of 2 rows
     without the conjugate twiddle (``corr_rows_long``), the inverse
@@ -1107,8 +1239,9 @@ def _scene_bytes(nfft: int, mics: int, couples: int) -> int:
     (mics) beside the rows it reads, which then take the GCC's forward
     passes and its cross rows (the more of mics and 2 couples), and the
     spectra of every mic row (mics) (K1 and K2 hold the split's count, K3
-    2 mics + 1).  A 4-mic scene: 1.34 GB at 2^25, 2.68 GB at 2^26, 7.52 GB
-    at 2^27, 15.0 GB at 2^28, 30.1 GB at 2^29 and 60.1 GB at 2^30."""
+    2 mics + 1).  A 4-mic scene: 0.67 GB at 2^24, 1.88 GB at 2^25, 3.76 GB
+    at 2^26, 7.52 GB at 2^27, 15.0 GB at 2^28, 30.1 GB at 2^29 and 60.1 GB
+    at 2^30."""
     if nfft <= FFT_REAL_ONE_BLOCK:
         return 0
     halves = max(mics, 2 * couples) + mics
@@ -1124,10 +1257,11 @@ def scene_chunk(scenes: int, mics: int, num_pairs: int, nfft: int) -> int:
     scenes of a GCC row pass (chunk) and the pair couples (chunk *
     couples) — and the scenes' scratch at nfft within
     ``SPLIT_SCRATCH_BYTES`` (``_scene_bytes``; at least 2 scenes), as
-    ``_launch_rows`` caps K4a's, K4b's and K6's rows: 12 scenes of 4 mics
-    at 2^25, 6 at 2^26 (from 2^15 the cap binds before the grids' limit:
-    13,106 scenes of 4 mics at 2^15, 408 at 2^20).  The couples are those of the larger of
-    ``num_pairs`` and the all-pairs count M (M - 1) / 2, so that K3, which
+    ``_launch_rows`` caps K4a's, K4b's and K6's rows: 24 scenes of 4 mics
+    at 2^24, 8 at 2^25, 4 at 2^26 (from 2^15 the cap binds before the
+    grids' limit: 13,106 scenes of 4 mics at 2^15, 408 at 2^20).  The
+    couples are those of the larger of ``num_pairs`` and the all-pairs
+    count M (M - 1) / 2, so that K3, which
     has no pairs, chunks as K2 and K5 do over all pairs of the same
     scenes, and the sweep's fused and split paths stay equal to the bit.
     A chunk short of ``scenes`` is even, so that rows pack two to a
@@ -1169,7 +1303,7 @@ def gcc_all_pairs(signals: torch.Tensor, pairs_i: Sequence[int],
       row; per couple the cross-spectra and the inverse row DFTs), and a
       column pass whose inverse column DFTs write the correlations in
       natural order;
-    - the spectra (8,192 to ``FFT_SPLIT_MAX``, 2^26, where ``gcc_rows``
+    - the spectra (8,192 to ``FFT_SPLIT_MAX``, 2^24, where ``gcc_rows``
       does not fit, at any mic count; every mic count from 2^20 on): four
       launches — K4a's two passes write the mic rows' natural-order
       spectra (scenes * M, nfft/2 + 1), K9's row pass reads rows scene * M
@@ -1177,13 +1311,13 @@ def gcc_all_pairs(signals: torch.Tensor, pairs_i: Sequence[int],
       loader) into the packed cross rows, and the column pass as above;
       the strips are ``spectra_plan``'s (16 columns and rows up to 2^20; 8
       columns, 16 rows at 2^21 and 8 at 2^22; 8 and 4 at 2^23; 4 and 4 at
-      2^24; 4 and 2 at 2^25; 2 and 2 at 2^26), and the cross rows reuse
+      2^24), and the cross rows reuse
       K4a's packed buffer;
     - the spectra block (nfft <= 4,096 beyond 10 mics; 24 at 2,048): two
       launches, K4a's one-block transform of every mic row into the
       spectra, then K9's one-block kernel a packed cross row with the
       pair-indexed loader;
-    - above 2^26, to ``FFT_LONG_MAX`` (2^30), the three-pass split through
+    - above 2^24, to ``FFT_LONG_MAX`` (2^30), the three-pass split through
       the spectra (``long_plan``): six launches, K4a's three (passes A and
       B, ``fft_real_rows``) into the spectra, then K9's three with the
       pair-indexed loader (``corr_rows_long``, B', ``long_cols_corr``),
@@ -1302,14 +1436,14 @@ def gcc_windowed(signals: torch.Tensor, pairs_i: Sequence[int],
     inverse column DFTs end in the window and the statistics (per-block
     partials summed in block order by the row's last block, the argmax by
     a 64-bit atomic maximum that keeps the smallest index on ties);
-    elsewhere up to 2^26, four launches through the mic rows' spectra, as
+    elsewhere up to 2^24, four launches through the mic rows' spectra, as
     K1's: K4a's two passes, the pair-indexed row pass (which also clears
     the argmax keys and block counters) and that column pass, with
-    ``spectra_plan``'s strips (8 columns from 2^21, 4 at 2^24 and 2^25, 2
-    at 2^26); above, to 2^30, six launches on the three-pass split through
+    ``spectra_plan``'s strips (8 columns from 2^21, 4 at 2^24);
+    above, to 2^30, six launches on the three-pass split through
     the mic rows' spectra, as K1's: K4a's three passes, the pair-indexed
     row pass, B' and pass A' ending in the window and the statistics
-    (``long_cols_window``, the partials of its 65,536 blocks a row at 2^27
+    (``long_cols_window``, the partials of its 32,768 blocks a row at 2^27
     summed in a fixed order by the row's last block).  Bound by device
     memory.  A batch whose
     grids would exceed 65,535 rows, or whose scratch would pass
@@ -1383,24 +1517,24 @@ def bootstrap_peaks(s1: torch.Tensor, rows: torch.Tensor, nfft: int,
 
     - nfft <= ``FFT_REAL_ONE_BLOCK`` (4096): one launch, a block per
       packed row holding every step in shared memory, no scratch;
-    - up to ``FFT_SPLIT_MAX`` (2^26): three launches over one scratch
+    - up to ``FFT_SPLIT_MAX`` (2^24): three launches over one scratch
       buffer, K4a's split nfft = n1 * n2 (``fft_real_split``) forward and
       back: K4a's column pass; a row pass (16 rows a block, 8 at n2 =
-      2,048, 4 at 4,096, 2 at 8,192) that runs the forward row DFTs, the
-      whitening, the inverse row DFTs and the inverse twiddle in shared
-      memory and writes back in place; and a column pass whose inverse
-      column DFTs end in the maxima (the column passes' strips 16
-      columns, 8 at n1 = 2,048, 4 at 4,096, 2 at 8,192:
-      ``split_strips``; the row pass in 512 threads from 2^21);
+      1,024, 4 at 2,048, 2 at 4,096: ``boot_strip``, at most 512 threads)
+      that runs the forward row DFTs, the whitening, the inverse row DFTs
+      and the inverse twiddle in shared memory and writes back in place;
+      and a column pass whose inverse column DFTs end in the maxima (the
+      column passes' strips 16 columns, 8 at n1 = 2,048, 4 at 4,096:
+      ``split_strips``);
     - above, to 2^30: five launches over the scratch buffer, the
       three-pass split (``long_plan``): the column DFTs in two passes of
-      16-column strips (n1 = n1a * n1b), a row pass as at 2^26 that
-      leaves the inverse twiddle to the next pass, and the two column
+      16-column strips (n1 = n1a * n1b), a row pass of 2,048-point rows
+      that leaves the inverse twiddle to the next pass, and the two column
       passes mirrored, the last ending in the maxima.
 
     Bound by device memory: the rows' read and, on the split, two reads
     and two writes of the packed buffer (32 bytes a point of the packed
-    rows; 48 above 2^26).  A batch beyond ``_launch_rows`` rows
+    rows; 48 above 2^24).  A batch beyond ``_launch_rows`` rows
     (``ROW_CHUNK``, or as many as keep the scratch within
     ``SPLIT_SCRATCH_BYTES``: 512 rows at 2^23, 256 at 2^24, 128 at 2^25,
     64 at 2^26, 32 at 2^27, 16 at 2^28, 4 at 2^30) launches in chunks,
@@ -1455,7 +1589,7 @@ def noise_bootstrap_peaks(s1: torch.Tensor, seeds: torch.Tensor,
 
     Replaces ``bfly_noise_bootstrap_peaks`` (pyaudiolocalization_tpu/ops/
     pallas_fft.py:1326): K4b's schedules (``bootstrap_peaks``: one launch
-    up to 4096, three on the four-step split up to 2^26 with K4b's strips,
+    up to 4096, three on the four-step split up to 2^24 with K4b's strips,
     five on the three-pass split above) with its row load replaced by the
     draw, made where the first forward step reads the point (two draws per
     complex transform), so the rows never exist in device memory and no
@@ -1645,12 +1779,12 @@ def delay_sum(base: torch.Tensor, tau: torch.Tensor, gains: torch.Tensor,
     from 8,192 to 2^19, K4b's four-step schedule in three launches, K4a's
     column pass over the bases, a row pass that holds a base strip, mixes
     each of its mic rows in turn and runs their inverse row DFTs, and the
-    inverse column DFTs in place; from 2^20 to 2^26, where that row pass's
+    inverse column DFTs in place; from 2^20 to 2^24, where that row pass's
     two strips do not fit, four: K4a's two passes write the bases' half
     spectra, a row pass mixes each packed mic row's strip from them (one
     strip at any mic count) and runs its inverse row DFTs, and the inverse
-    column DFTs (``spectra_plan``'s strips: 8 wide at 2,048, 4 at 4,096,
-    2 at 8,192); above 2^26, to 2^30, six on the three-pass split: K4a's
+    column DFTs (``spectra_plan``'s strips: 8 wide at 2,048, 4 at 4,096);
+    above 2^24, to 2^30, six on the three-pass split: K4a's
     three passes into the bases' half spectra, the mix row pass
     (``render_spec_rows_long``, the twiddle left to B'), B' and A'
     (``long_cols_render``) into a second buffer of packed mic rows.
@@ -1735,7 +1869,7 @@ def scene_windowed(base: torch.Tensor, tau: torch.Tensor,
     65,536 three launches each on the four-step split, with the finalize
     between, seven in all; where ``gcc_rows`` does not fit (2^20 and up
     at any mic count) the GCC's four launches through the mic rows'
-    spectra; from 2^20 to 2^26 the render's four through the base rows'
+    spectra; from 2^20 to 2^24 the render's four through the base rows'
     spectra and the finish's one to four (``finish_groups``); above, to
     2^30, the render's six and the GCC's six on the three-pass split with
     the finish between; the intermediates in device memory and L2.  The

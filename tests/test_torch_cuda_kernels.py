@@ -619,6 +619,7 @@ def test_gcc_spectra_routes_match_plain(cuda, b, m, length, nfft):
     within 1e-6 with the argmax equal, with and without the band."""
     route = cf.gcc_route(nfft, m)
     assert route.kind == (cf.ROUTE_SPECTRA_BLOCK if nfft <= 4096
+                          else cf.ROUTE_LONG if nfft > cf.FFT_SPLIT_MAX
                           else cf.ROUTE_SPECTRA)
     g = _gen(cuda, 20)
     sig = torch.randn((b, m, length), generator=g, device=cuda)
@@ -722,7 +723,8 @@ def test_render_spectra_route_matches_plain(cuda, scenes, m, paths, total,
     ``SCENE_TOL`` (2e-5; raw renders relative to their peak) of its twin;
     K2 on its signals within 1e-6 with equal argmaxes; K5 within 1e-5 of
     its twin and equal to K3 then K2 to the bit."""
-    assert cf.render_route(nfft).kind == cf.ROUTE_SPECTRA
+    assert cf.render_route(nfft).kind == (
+        cf.ROUTE_LONG if nfft > cf.FFT_SPLIT_MAX else cf.ROUTE_SPECTRA)
     base, tau, gains, snr, seeds, fade = _scene_inputs(cuda, scenes, m,
                                                        paths, total, out, 21)
     pi, pj = _pairs(m)

@@ -304,7 +304,8 @@ def bootstrap_peaks_model(s1, x, n, strip=None):
     maxima, (rows, n) correlations in natural order), following the
     kernels: one block for n <= 4096 (``boot_block``), else K4a's pass 1,
     ``boot_rows`` (``strip`` rows a block; the kernel's by default,
-    ``split_strips``: 16, 8 at n2 = 2,048) and ``boot_cols`` (pass 1's
+    ``boot_strip``: 16, 8 at n2 = 1,024, 4 at 2,048, 2 at 4,096) and
+    ``boot_cols`` (pass 1's
     strips of columns).  Asserts that the whitening's tasks
     cover every bin once (a pair's two bins, or a self-mirrored bin), that
     pass 2 writes every row k1 once, and that its tasks read s1 at
@@ -323,7 +324,8 @@ def bootstrap_peaks_model(s1, x, n, strip=None):
     else:
         plan = cf.split_plan(n, packed)
         cs, rs = plan.cols.strip, plan.boot_rows.strip
-        assert (cs, rs) == cf.split_strips(n1, n2)
+        assert (cs, rs) == (cf.split_strips(n1, n2)[0],
+                            cf.boot_strip(n1, n2))
         assert plan.boot_cols.strip == cs
         y = _cols_pass(z, n1, n2, cs)
         # Pass 2 (boot_rows), then times W_n^{-j2 k1}, written back in
@@ -516,29 +518,30 @@ def test_bootstrap_schedule_matches_irfft(bits):
 
 
 def test_bootstrap_schedule_largest_split():
-    """2^22, the largest square split (2,048 x 2,048: strips of 8 columns
-    and of 8 rows), at one row."""
+    """2^22, the largest square split (2,048 x 2,048: strips of 8 columns,
+    ``boot_rows``' of 4 rows), at one row."""
     n = cf.SPLIT_COLS_LONG_MAX
-    assert cf.split_strips(*cf.fft_real_split(n)) == (8, 8)
+    assert cf.split_strips(*cf.fft_real_split(n))[0] == 8
+    assert cf.boot_strip(*cf.fft_real_split(n)) == 4
     _check_boot(*_boot_case(np.random.default_rng(22), 1, n), n)
 
 
 @pytest.mark.parametrize("bits", [23, 24])
 def test_bootstrap_schedule_above_2_22(bits):
     """K4b's split past 2^22, the long side in the rows: 2^23 (2,048 x
-    4,096: column strips of 8, ``boot_rows``' of 4 rows, 2 rows k1 and
-    their partners) and 2^24 (4,096 x 4,096: 4 and 4), at one row."""
+    4,096: column strips of 8, ``boot_rows``' of 2 rows, row k1 and its
+    partner) and 2^24 (4,096 x 4,096: 4 and 2), at one row."""
     n = 1 << bits
     assert cf._split_n1(n) == cf.fft_real_split(n)[0]
-    assert cf.split_strips(*cf.fft_real_split(n))[1] == 4
+    assert cf.boot_strip(*cf.fft_real_split(n)) == 2
     _check_boot(*_boot_case(np.random.default_rng(bits), 1, n), n)
 
 
 @pytest.mark.parametrize("bits", [20, 21])
 def test_bootstrap_schedule_long_splits(bits):
-    """2^20 (1,024 x 1,024, the largest split of strips of 16) and 2^21
-    (2,048 x 1,024: 8 columns a column strip, 16 rows a row strip) at one
-    row."""
+    """2^20 (1,024 x 1,024, the largest split of column strips of 16,
+    ``boot_rows``' of 8 rows) and 2^21 (2,048 x 1,024: 8 columns a column
+    strip, 8 rows a row strip) at one row."""
     n = 1 << bits
     _check_boot(*_boot_case(np.random.default_rng(bits), 1, n), n)
 
@@ -569,7 +572,7 @@ def test_fft_real_split_choice(n):
     assert cf.fft_real_split(cf.SPLIT_COLS_LONG_MAX) == (2048, 2048)
     assert cf.fft_real_split(2 * cf.SPLIT_COLS_LONG_MAX) == (2048, 4096)
     assert cf.fft_real_split(1 << 24) == (4096, 4096)
-    assert cf.fft_real_split(cf.FFT_SPLIT_MAX) == (8192, 8192)
+    assert cf.fft_real_split(cf.FFT_SPLIT_MAX) == (4096, 4096)
 
 
 @pytest.mark.parametrize("n,strips,rows_strip", [
@@ -577,22 +580,28 @@ def test_fft_real_split_choice(n):
     (1 << 20, (16, 16), 16), (1 << 21, (8, 16), 16), (1 << 22, (8, 8), 8),
     (1 << 23, (8, 4), 4), (1 << 24, (4, 4), 4)])
 def test_split_strips_rule(n, strips, rows_strip):
-    """K4a's, K4b's and K6's strips (``split_strips``): 16 columns and 16
-    rows up to n1 = 1,024 (every shape up to 2^20 keeps its strips), 8
-    columns at n1 = 2,048 and 8 rows at n2 = 2,048, 4 at 4,096 (2^23's
-    rows, both of 2^24's); K4a's pass 2 8 rows at n2 = 2,048 and 4 at
-    4,096.  Each strip holds at most ``BLOCK_POINTS`` points and its pass
-    fits one block's shared memory (the kernels' byte counts); the next
-    wider strip does not fit where a narrower one is taken;
-    ``split_plan`` and ``spectra_plan`` give the same strips.  The split
-    reaches 2^26 for every transforming kernel (K9's schedule is K4a's),
-    one limit (``FFT_SPLIT_MAX``), its row passes of more than one strip
-    2^20 (``STAGE_SPLIT_MAX``)."""
+    """K4a's, K4b's, K6's and the spectra routes' strips (``split_strips``):
+    16 columns and 16 rows up to n1 = 1,024 (every shape up to 2^20 keeps
+    its strips), 8 columns at n1 = 2,048 and 8 rows at n2 = 2,048, 4 at
+    4,096 (2^23's rows, both of 2^24's); K4a's pass 2 8 rows at n2 = 2,048
+    and 4 at 4,096; K4b's and K6's row pass half the points of the
+    spectra routes' from n2 = 1,024 (``boot_strip``: at most 512 threads).
+    Each strip holds at most ``BLOCK_POINTS`` points and its pass fits one
+    block's shared memory (the kernels' byte counts); the next wider strip
+    does not fit where a narrower one is taken; ``split_plan`` and
+    ``spectra_plan`` give the same strips.  The split reaches 2^24 for
+    every transforming kernel (K9's schedule is K4a's), one limit
+    (``FFT_SPLIT_MAX``), its row passes of more than one strip 2^20
+    (``STAGE_SPLIT_MAX``)."""
     n1, n2 = cf.fft_real_split(n)
     assert cf.split_strips(n1, n2) == strips
     assert cf.fft_real_rows_strip(n2, 1) == rows_strip
     plan = cf.split_plan(n)
-    assert (plan.cols.strip, plan.boot_rows.strip) == strips
+    assert plan.cols.strip == strips[0]
+    boot = plan.boot_rows.strip
+    assert boot == cf.boot_strip(n1, n2) == (
+        strips[1] if n2 <= 512 else strips[1] // 2)
+    assert n2 <= 256 or n2 * boot <= cf.BLOCK_POINTS // 2
     assert plan.rows.strip == rows_strip
     cs, rs = strips
     assert n1 * cs <= cf.BLOCK_POINTS and n2 * rs <= cf.BLOCK_POINTS
@@ -605,17 +614,17 @@ def test_split_strips_rule(n, strips, rows_strip):
     if rs < 16:
         assert n2 * 2 * rs > cf.BLOCK_POINTS
     assert cf._split_n1(n) == n1
-    assert cf._split_strips(n1, n) == strips
+    assert cf._split_strips(n1, n) == (strips[0], boot)
     assert cf.corr_schedule(n) == n1
     spectra = cf.spectra_plan(n)
     assert (spectra.spec_cols.strip, spectra.spec_rows.strip) == strips
-    # Above 2^26 K9, as K4a, K4b and K6, takes the three-pass split
+    # Above 2^24 K9, as K4a, K4b and K6, takes the three-pass split
     # (``long_plan``).
     assert cf.corr_schedule(2 * cf.FFT_SPLIT_MAX) == 16384
     assert cf._split_n1(2 * cf.FFT_SPLIT_MAX) == 16384
     assert cf._split_strips(16384, 2 * cf.FFT_SPLIT_MAX) == (16, 2)
     assert cf.STAGE_SPLIT_MAX == 1 << 20 and cf.SPLIT_COLS_LONG_MAX == 1 << 22
-    assert cf.FFT_SPLIT_MAX == 1 << 26
+    assert cf.FFT_SPLIT_MAX == 1 << 24
     assert not hasattr(cf, "SPECTRA_SPLIT_MAX")
 
 
@@ -626,10 +635,11 @@ def test_split_plan_rule(bits):
     at most ``BLOCK_POINTS`` points and ``SMEM_OPTIN`` bytes a block (the
     kernels' byte counts, the row strips at the stride ``row_ld``), for
     1, 2 and 64 packed rows; up to 2^20 the rows at the odd stride n2 + 1
-    as before, and only strips of 16 columns and rows there."""
+    as before, and only strips of 16 columns there, of 16 rows up to n2 =
+    512 (``boot_strip``)."""
     n = 1 << bits
     n1, n2 = cf.fft_real_split(n)
-    cs, rs = cf.split_strips(n1, n2)
+    cs, rs = cf.split_strips(n1, n2)[0], cf.boot_strip(n1, n2)
     for packed in (1, 2, 64):
         plan = cf.split_plan(n, packed)
         s2 = cf.fft_real_rows_strip(n2, packed)
@@ -643,8 +653,8 @@ def test_split_plan_rule(bits):
             assert step.strip * length <= cf.BLOCK_POINTS
             assert step.smem <= cf.SMEM_OPTIN
         if n <= cf.STAGE_SPLIT_MAX:
-            assert cf.row_ld(rs, n2) == cf.row_ld(s2, n2) == n2 + 1
-            assert cs == rs == 16 and s2 >= 16
+            assert cf.row_ld(s2, n2) == n2 + 1 and cs == 16 and s2 >= 16
+            assert rs == (16 if n2 <= 512 else 8)
     with pytest.raises(ValueError):
         cf.split_plan(cf.FFT_REAL_ONE_BLOCK)
     with pytest.raises(ValueError):
@@ -669,10 +679,10 @@ def test_split_twiddle_tables(bits):
     assert np.array_equal(t1.view(np.int32), tab[:n // 2:n2].view(np.int32))
     assert np.array_equal(t2.view(np.int32), tab[:n // 2:n1].view(np.int32))
     assert cf._twiddles(4096, "cpu").shape == (2048, 2)
-    # Past the split (2^27, a table of 2^26 entries: its lengths only):
+    # Past the split (2^25, a table of 2^24 entries: its lengths only):
     # the three-pass split's n1 and n2, then n1a and n1b.
     assert cf._twiddle_lengths(2 * cf.FFT_SPLIT_MAX) == [
-        2 * cf.FFT_SPLIT_MAX, 16384, 8192, 128, 128]
+        2 * cf.FFT_SPLIT_MAX, 16384, 2048, 128, 128]
 
 
 @pytest.mark.parametrize("n1,n2,strip", [(2048, 1024, 8), (2048, 2048, 8),
@@ -1292,20 +1302,20 @@ def test_window_stats_keep_the_smallest_tied_index(n):
     (1 << 18, 4, (512, 512)), (1 << 18, 8, (512, 512)),
     (1 << 19, 4, (1024, 1024)), (1 << 20, 2, (1024, 1024)),
     (1 << 22, 4, (2048, 2048)), (1 << 23, 4, (2048, 2048)),
-    (1 << 24, 4, (4096, 4096)), (1 << 25, 4, (4096, 4096)),
-    (1 << 26, 4, (8192, 8192)), (1 << 27, 4, (16384, 16384)),
-    (1 << 28, 3, (32768, 32768))])
+    (1 << 24, 4, (4096, 4096)), (1 << 25, 4, (16384, 16384)),
+    (1 << 26, 4, (32768, 32768)), (1 << 27, 4, (65536, 65536)),
+    (1 << 28, 3, (131072, 131072))])
 def test_scene_stages_rule(n, mics, want):
     """One rule for K3, K2 and K5, read from the two routes (the n1 of
     ``render_route`` and of ``gcc_route``): up to 4,096 one block for the
     render (its twiddles, base row and work row), and for the GCC one
     block a scene where a scene's packed mic rows and a spare row fit,
     else a packed cross row through the mic rows' spectra; the split from
-    8,192 to 2^26, the render's with ``render_rows`` where its row pass's
+    8,192 to 2^24, the render's with ``render_rows`` where its row pass's
     two strips fit one block's shared memory (to 2^19), else through the
     base rows' spectra, whose row pass holds one strip of
     ``split_strips``, the GCC's with ``gcc_rows`` where its (mics + 1) //
-    2 + 1 strips fit, else through the mic rows' spectra; above 2^26 both
+    2 + 1 strips fit, else through the mic rows' spectra; above 2^24 both
     through the spectra on the three-pass split, one route."""
     route = cf.gcc_route(n, mics)
     render = cf.render_route(n)
@@ -1329,8 +1339,7 @@ def test_scene_stages_rule(n, mics, want):
     assert render.kind == (cf.ROUTE_ROWS if two else cf.ROUTE_SPECTRA)
     if not two:
         assert (render.cols, render.rows) == cf.split_strips(n1, n2)
-        assert cf._row_pass_smem(n1, n2, 1, render.rows,
-                                 cf.split_hi_points(n2)) <= cf.SMEM_OPTIN
+        assert cf._row_pass_smem(n1, n2, 1, render.rows) <= cf.SMEM_OPTIN
     if route.kind == cf.ROUTE_ROWS:
         assert cf._row_pass_smem(got[1], n // got[1],
                                  (mics + 1) // 2 + 1) <= cf.SMEM_OPTIN
@@ -1599,15 +1608,13 @@ def test_corr_split_strips_of_four(rows, n):
     assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
 
 
-@pytest.mark.parametrize("bits", range(13, 27))
+@pytest.mark.parametrize("bits", range(13, 25))
 def test_spectra_plan_rule(bits):
-    """``spectra_plan`` at every length of the split, 8,192 to 2^26, for
+    """``spectra_plan`` at every length of the split, 8,192 to 2^24, for
     1, 2 and 64 packed rows: K4a's two passes as ``split_plan`` gives
     them, the row pass (``corr_rows``, ``render_spec_rows``) one strip of
-    ``split_strips``' rows at the stride ``row_ld`` beside the n1-point
-    table and the n2-point one where it stays in shared memory
-    (``split_hi_points``: not at 2^25 and 2^26, whose row pass reads it
-    from device memory), the column pass (``corr_cols``, ``window_cols``,
+    ``split_strips``' rows at the stride ``row_ld`` beside the n1- and
+    n2-point tables, the column pass (``corr_cols``, ``window_cols``,
     ``render_cols``) ``split_strips``' columns beside the n1/2
     sub-twiddles; each block at most ``BLOCK_POINTS`` points in at most
     ``SMEM_OPTIN`` bytes (``window_cols`` with its 257 static bytes);
@@ -1620,11 +1627,8 @@ def test_spectra_plan_rule(bits):
         plan = cf.spectra_plan(n, packed)
         split = cf.split_plan(n, packed)
         assert (plan.cols, plan.rows) == (split.cols, split.rows)
-        hi = cf.split_hi_points(n2)
-        assert hi == (n2 if bits <= 24 else 0)
-        assert plan.spec_rows == (rs, 8 * (n2 // 2 + n1 + hi
+        assert plan.spec_rows == (rs, 8 * (n2 // 2 + n1 + n2
                                            + rs * cf.row_ld(rs, n2)))
-        assert plan.spec_rows == split.boot_rows
         assert plan.spec_cols == (cs, 8 * (n1 // 2 + n1 * cs))
         for step, length in ((plan.cols, n1), (plan.rows, n2),
                              (plan.spec_rows, n2), (plan.spec_cols, n1)):
@@ -1921,15 +1925,15 @@ def test_corr_block_matches_whitened_corr(n):
     (65536, 4, 256), (65536, 10, 256), (65536, 11, 256), (1 << 18, 8, 512),
     (1 << 19, 4, 1024), (1 << 20, 2, 1024), (1 << 21, 4, 2048),
     (1 << 21, 64, 2048), (1 << 22, 4, 2048), (1 << 23, 4, 2048),
-    (1 << 24, 4, 4096), (1 << 24, 128, 4096), (1 << 25, 4, 4096),
-    (1 << 25, 128, 4096), (1 << 26, 4, 8192), (1 << 27, 4, 16384),
-    (1 << 30, 7, 131072)])
+    (1 << 24, 4, 4096), (1 << 24, 128, 4096), (1 << 25, 4, 16384),
+    (1 << 25, 128, 16384), (1 << 26, 4, 32768), (1 << 27, 4, 65536),
+    (1 << 30, 7, 524288)])
 def test_gcc_schedule_rule(n, mics, want):
     """K1's schedule (``gcc_route``'s n1) is K2's GCC stage's and K5's,
     one rule: one block up to 4,096 (a scene where the twiddles, a scene's
     widest span of packed rows and a spare row fit one block's shared
     memory, else a packed cross row through the spectra); the split from
-    8,192 to 2^26 (``gcc_rows`` or the spectra, which hold one strip at
+    8,192 to 2^24 (``gcc_rows`` or the spectra, which hold one strip at
     any mic count); the three-pass split through the spectra above, to
     2^30."""
     route = cf.gcc_route(n, mics)
@@ -1946,28 +1950,26 @@ def test_gcc_schedule_rule(n, mics, want):
 @pytest.mark.parametrize("n,want", [
     (4, 1), (128, 1), (4096, 1), (8192, 128), (65536, 256), (131072, 512),
     (1 << 20, 1024), (1 << 21, 2048), (1 << 22, 2048), (1 << 23, 2048),
-    (1 << 24, 4096), (1 << 25, 4096), (1 << 26, 8192), (1 << 27, 16384),
-    (1 << 30, 131072)])
+    (1 << 24, 4096), (1 << 25, 16384), (1 << 26, 32768), (1 << 27, 65536),
+    (1 << 30, 524288)])
 def test_corr_schedule_rule(n, want):
     """K9's schedule (``corr_schedule``): one block up to 4,096, K4a's
-    split up to 2^26 (its row pass's one strip of ``spectra_plan`` fits at
-    every split: 16 rows, 8 at n2 = 2,048, 4 at 4,096, 2 at 8,192 with
-    the n2-point table in device memory), the three-pass split above, as
-    K4a's (``corr_rows_long`` in strips of 2 rows of 8,192 without an
-    n1- or n2-point table)."""
+    split up to 2^24 (its row pass's one strip of ``spectra_plan`` fits at
+    every split: 16 rows, 8 at n2 = 2,048, 4 at 4,096), the three-pass
+    split above, as K4a's (``corr_rows_long`` in strips of 2 rows of 2,048
+    without an n1- or n2-point table)."""
     assert cf.corr_schedule(n) == want
     if n > cf.FFT_SPLIT_MAX:
         plan = cf.long_plan(n)
-        assert plan.corr_rows.strip == 2 and n // want == 8192
-        assert plan.corr_rows.smem == 8 * (4096 + 2 * cf.row_ld(2, 8192))
+        assert plan.corr_rows.strip == 2 and n // want == 2048
+        assert plan.corr_rows.smem == 8 * (1024 + 2 * cf.row_ld(2, 2048))
         assert plan.corr_rows.smem <= cf.SMEM_OPTIN
     elif 1 < want:
         plan = cf.spectra_plan(n)
         rows = plan.spec_rows.strip
         n2 = n // want
         assert rows == cf.split_strips(want, n2)[1]
-        assert cf._row_pass_smem(want, n2, 1, rows,
-                                 cf.split_hi_points(n2)) <= cf.SMEM_OPTIN
+        assert cf._row_pass_smem(want, n2, 1, rows) <= cf.SMEM_OPTIN
         assert plan.spec_rows.smem <= cf.SMEM_OPTIN
 
 

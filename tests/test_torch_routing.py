@@ -67,11 +67,12 @@ def _named(calls, name):
 
 
 def _no_tables(monkeypatch):
-    """Stubs the twiddle table (``cuda_fft._twiddles``), which no launch
-    here reads: at 2^26 and 2^27 it is 2^25 to 2^26 entries, built in
-    float64."""
-    monkeypatch.setattr(cf, "_twiddles", lambda nfft, device: torch.empty(
-        (1, 2), device=device))
+    """Stubs the twiddle tables (``cuda_fft._twiddles``,
+    ``_long_twiddles``), which no launch here reads: at 2^26 and 2^27 they
+    are 2^25 to 2^26 entries, built in float64."""
+    for name in ("_twiddles", "_long_twiddles"):
+        monkeypatch.setattr(cf, name, lambda nfft, device: torch.empty(
+            (1, 2), device=device))
 
 
 # ---------------------------------------------------------------------------
@@ -80,46 +81,50 @@ def _no_tables(monkeypatch):
 
 def test_spectrum_above_2_20_launches_k4a_on_the_radix2_passes(launches):
     """sig1's spectrum at nfft 2^21 (the bootstrap of a 23.7 s recording at
-    44.1 kHz) reaches one K4a launch on the split, n1 = 2,048, with strips
-    of 8 columns and pass-2 strips of 16 rows."""
+    44.1 kHz) reaches one K4a launch of its half-length transform
+    (``half_plan``): 2^20 points on the split, n1 = 1,024, with strips of
+    16 columns and pass-2 strips of 16 rows."""
     sig = torch.zeros(1_046_019)
     spec = ttdoa._spectrum(sig, 1 << 21)
     assert spec.shape == ((1 << 20) + 1,) and spec.dtype == torch.complex64
     (args,) = _named(launches, "fft_real")
-    rows, length, nfft, n1, cols, s2 = args[1:7]
-    assert (rows, length, nfft, n1) == (1, 1_046_019, 1 << 21, 2048)
-    assert (cols, s2) == (8, 16)
+    rows, length, nfft, n1, cols, s2, n1a, half = args[1:9]
+    assert (rows, length, nfft, n1) == (1, 1_046_019, 1 << 21, 1024)
+    assert (cols, s2, n1a, half) == (16, 16, 0, 1)
     assert [n for n, _ in launches] == ["fft_real"]
 
 
 @pytest.mark.parametrize("length,bits,n1,strips", [
-    (4_200_000, 23, 2048, (8, 4)), (8_400_000, 24, 4096, (4, 4))])
+    (4_200_000, 23, 2048, (8, 8, 0)), (8_400_000, 24, 4096, (16, 8, 64))])
 def test_spectrum_at_2_23_and_2_24_launches_k4a_on_the_split(
         launches, length, bits, n1, strips):
     """sig1's spectrum at nfft 2^23 (a 47.5 s recording at 44.1 kHz under
-    ``max_expected_delay=None``) and 2^24 (95 s) reaches one K4a launch on
-    the split, the long side in the rows: 2,048 x 4,096 with strips of 8
-    columns and pass-2 strips of 4 rows, and 4,096 x 4,096 with 4 and 4."""
+    ``max_expected_delay=None``) and 2^24 (95 s) reaches one K4a launch of
+    its half-length transform: 2^22 points on the split (2,048 x 2,048,
+    strips of 8 columns and pass-2 strips of 8 rows), and 2^23 on the
+    three-pass split from ``HALF_LONG_MIN`` (64 x 64 x 2,048, 16 columns,
+    8 rows)."""
     spec = ttdoa._spectrum(torch.zeros(length), 1 << bits)
     assert spec.shape == ((1 << (bits - 1)) + 1,)
     (args,) = _named(launches, "fft_real")
     assert args[1:5] == (1, length, 1 << bits, n1)
-    assert args[5:7] == strips
+    assert args[5:9] == strips + (1,)
     assert [n for n, _ in launches] == ["fft_real"]
 
 
 def test_spectrum_above_2_22_launches_k4a_on_the_radix2_passes(launches,
                                                               monkeypatch):
-    """At nfft 2^27, past K4a's two-pass split (``FFT_SPLIT_MAX``, 2^26),
-    K4a's one launch takes the three-pass split (``long_plan``), not the
-    radix-2 passes: n1 = 16,384 = 128 x 128 (n1a = 128) with n2 = 8,192,
-    column strips of 16 and pass-2 strips of 2 rows."""
+    """At nfft 2^27, past K4a's two-pass split (``FFT_SPLIT_MAX``, 2^24),
+    K4a's one launch of its half-length transform takes the three-pass
+    split of 2^26 points, not the radix-2 passes: n1 = 32,768 = 256 x 128
+    (n1a = 256) with n2 = 2,048, column strips of 16 and pass-2 strips of
+    8 rows."""
     _no_tables(monkeypatch)
     spec = ttdoa._spectrum(torch.zeros(600_000), 1 << 27)
     assert spec.shape == ((1 << 26) + 1,)
     (args,) = _named(launches, "fft_real")
-    assert args[1:5] == (1, 600_000, 1 << 27, 16384)
-    assert args[5:8] == (16, 2, 128)
+    assert args[1:5] == (1, 600_000, 1 << 27, 32768)
+    assert args[5:9] == (16, 8, 256, 1)
     assert [n for n, _ in launches] == ["fft_real"]
 
 
@@ -127,30 +132,34 @@ def test_spectrum_above_2_22_launches_k4a_on_the_radix2_passes(launches,
                                          ("noise", "noise_bootstrap_peaks")])
 def test_bootstrap_at_2_21_runs_both_nulls_on_the_passes(launches, mode,
                                                          kernel):
-    """bootstrap_significance at nfft 2^21 with each null: K4a and K4b (or
-    K6) on the split, n1 = 2,048, with strips of 8 columns and 16 rows."""
+    """bootstrap_significance at nfft 2^21 with each null: K4a (sig1's
+    half-length transform: 2^20 points, n1 = 1,024, 16 columns) and K4b
+    (or K6) on the split, n1 = 2,048, with strips of 8 columns and 8 rows
+    (``boot_strip``)."""
     gen = torch.Generator().manual_seed(0)
     sig1 = torch.randn(600_000, generator=gen)
     sig2 = torch.randn(600_000, generator=gen)
     ttdoa.bootstrap_significance(sig1, sig2, gen, num_bootstrap=4,
                                  bootstrap_mode=mode, nfft=1 << 21)
     assert [n for n, _ in launches] == ["fft_real", kernel]
-    assert _named(launches, "fft_real")[0][4:6] == (2048, 8)
+    assert _named(launches, "fft_real")[0][4:6] == (1024, 16)
     (args,) = _named(launches, kernel)
     # (.., rows, length or n_samp, nfft, n1, column strip, row strip, ..)
-    assert args[2:8] == (4, 600_000, 1 << 21, 2048, 8, 16)
+    assert args[2:8] == (4, 600_000, 1 << 21, 2048, 8, 8)
 
 
-@pytest.mark.parametrize("bits,n1,strips", [(23, 2048, (8, 4)),
-                                            (24, 4096, (4, 4))])
+@pytest.mark.parametrize("bits,n1,strips,half", [
+    (23, 2048, (8, 2), (2048, 8)), (24, 4096, (4, 2), (4096, 16))])
 @pytest.mark.parametrize("mode,kernel", [("permutation", "bootstrap_peaks"),
                                          ("noise", "noise_bootstrap_peaks")])
 def test_bootstrap_at_2_23_and_2_24_runs_both_nulls_on_the_split(
-        launches, monkeypatch, mode, kernel, bits, n1, strips):
-    """At nfft 2^23 and 2^24 both nulls run K4a and K4b (or K6) on the
-    split, the long side in the rows: 2,048 x 4,096 with strips of 8
-    columns and 4 rows, 4,096 x 4,096 with 4 and 4; one buffer of the
-    packed rows (no ping-pong copy)."""
+        launches, monkeypatch, mode, kernel, bits, n1, strips, half):
+    """At nfft 2^23 and 2^24 both nulls run K4a (sig1's half-length
+    transform: 2^22 points on the split, 2^23 on the three-pass split)
+    and K4b (or K6) on the split, the long side in the rows: 2,048 x 4,096
+    with strips of 8 columns and 2 rows, 4,096 x 4,096 with 4 and 2; one
+    buffer of the packed rows (no ping-pong copy), K4a's of one packed row
+    of half the points."""
     gen = torch.Generator().manual_seed(0)
     sig1 = torch.randn(600_000, generator=gen)
     sig2 = torch.randn(600_000, generator=gen)
@@ -161,21 +170,23 @@ def test_bootstrap_at_2_23_and_2_24_runs_both_nulls_on_the_split(
     ttdoa.bootstrap_significance(sig1, sig2, gen, num_bootstrap=4,
                                  bootstrap_mode=mode, nfft=1 << bits)
     assert [n for n, _ in launches] == ["fft_real", kernel]
-    assert _named(launches, "fft_real")[0][4:6] == (n1, strips[0])
+    assert _named(launches, "fft_real")[0][4:6] == half
     (args,) = _named(launches, kernel)
     # (.., rows, length or n_samp, nfft, n1, column strip, row strip, ..)
     assert args[2:8] == (4, 600_000, 1 << bits, n1) + strips
-    assert scratch == [(1, 1 << bits), (2, 1 << bits)]
+    assert scratch == [(1, 1 << (bits - 1)), (2, 1 << bits)]
 
 
 @pytest.mark.parametrize("mode,kernel", [("permutation", "bootstrap_peaks"),
                                          ("noise", "noise_bootstrap_peaks")])
 def test_bootstrap_above_2_22_runs_both_nulls_on_the_passes(
         launches, monkeypatch, mode, kernel):
-    """At nfft 2^27, past K4a's, K4b's and K6's two-pass split (2^26),
-    both nulls run K4a and K4b (or K6) on the three-pass split, not the
-    radix-2 passes: n1 = 16,384, column strips of 16, row strips of 2,
-    n1a = 128, one buffer of the packed rows (no ping-pong copy)."""
+    """At nfft 2^27, past K4a's, K4b's and K6's two-pass split (2^24),
+    both nulls run K4a (sig1's half-length transform: 2^26 points, n1 =
+    32,768, n1a = 256, 16 columns, 8 rows) and K4b (or K6) on the
+    three-pass split, not the radix-2 passes: n1 = 65,536, column strips
+    of 16, row strips of 2, n1a = 256, one buffer of the packed rows (no
+    ping-pong copy)."""
     _no_tables(monkeypatch)
     gen = torch.Generator().manual_seed(0)
     sig1 = torch.randn(600_000, generator=gen)
@@ -187,34 +198,37 @@ def test_bootstrap_above_2_22_runs_both_nulls_on_the_passes(
     ttdoa.bootstrap_significance(sig1, sig2, gen, num_bootstrap=4,
                                  bootstrap_mode=mode, nfft=1 << 27)
     assert [n for n, _ in launches] == ["fft_real", kernel]
-    assert _named(launches, "fft_real")[0][4:8] == (16384, 16, 2, 128)
+    assert _named(launches, "fft_real")[0][4:9] == (32768, 16, 8, 256, 1)
     (args,) = _named(launches, kernel)
     # (.., rows, length or n_samp, nfft, n1, column strip, row strip, n1a)
-    assert args[2:9] == (4, 600_000, 1 << 27, 16384, 16, 2, 128)
-    assert scratch == [(1, 1 << 27), (2, 1 << 27)]
+    assert args[2:9] == (4, 600_000, 1 << 27, 65536, 16, 2, 256)
+    assert scratch == [(1, 1 << 26), (2, 1 << 27)]
 
 
 @pytest.mark.parametrize("nfft,n1,strips", [
     (4096, 1, (0, 0)), (1 << 16, 256, (16, 16)), (1 << 20, 1024, (16, 16)),
     (1 << 21, 2048, (8, 16)), (1 << 22, 2048, (8, 8)),
     (1 << 23, 2048, (8, 4)), (1 << 24, 4096, (4, 4)),
-    (1 << 25, 4096, (4, 2)), (1 << 26, 8192, (2, 2)),
-    (1 << 27, 16384, (16, 2))])
+    (1 << 25, 16384, (16, 8)), (1 << 26, 32768, (16, 8)),
+    (1 << 27, 65536, (16, 8))])
 def test_fft_real_schedule_by_length(launches, monkeypatch, nfft, n1,
                                      strips):
-    """K4a's n1 (``_split_n1``) and the strips of its passes: 16 and 16 up
-    to 2^20, 8 columns from n1 = 2,048 and 8 rows at n2 = 2,048, 4 rows at
-    n2 = 4,096 (2^23), 4 columns at n1 = 4,096 (2^24, 2^25), 2 rows at n2
-    = 8,192 (2^25, 2^26) and 2 columns at n1 = 8,192 (2^26); one block (n1
-    = 1) reads neither and gets 0; above 2^26 the three-pass split, n1 =
-    16,384 = n1a x 128 at 2^27, its column passes' 16 columns and pass 2's
-    2 rows.  n1a is 0 up to 2^26."""
+    """K4a's n1 (``_split_n1``) and the strips of its passes on a pair of
+    rows: 16 and 16 up to 2^20, 8 columns from n1 = 2,048 and 8 rows at
+    n2 = 2,048, 4 rows at n2 = 4,096 (2^23), 4 columns at n1 = 4,096
+    (2^24); one block (n1 = 1) reads neither and gets 0; above 2^24 the
+    three-pass split, n1 = nfft / 2,048 = n1a x n1b (16,384 = 128 x 128 at
+    2^25, 32,768 = 256 x 128 at 2^26, 65,536 = 256 x 256 at 2^27), its
+    column passes' 16 columns and pass 2's 8 rows.  n1a is 0 up to
+    2^24."""
     _no_tables(monkeypatch)
     cf.fft_real(torch.zeros(2, 100), nfft)
     (args,) = _named(launches, "fft_real")
     assert args[3:5] == (nfft, n1)
     assert args[5:7] == strips
-    assert args[7] == (128 if nfft > cf.FFT_SPLIT_MAX else 0)
+    assert args[7] == (cf.long_plan(nfft).n1a if nfft > cf.FFT_SPLIT_MAX
+                       else 0)
+    assert args[8] == 0                                   # two rows packed
 
 
 def _route(kernel, nfft, length=None):
@@ -259,18 +273,18 @@ N1_ARGS = {"gcc_all_pairs": slice(4, 6), "gcc_windowed": slice(4, 6),
                                  "scene_windowed", "delay_sum",
                                  "whitened_corr")] + [
     ("delay_sum", 1 << 23, 2048)] + [
-    (k, 1 << 25, 4096) for k in ("gcc_all_pairs", "gcc_windowed",
-                                 "scene_windowed", "delay_sum",
-                                 "whitened_corr")])
+    (k, 1 << 25, 16384) for k in ("gcc_all_pairs", "gcc_windowed",
+                                  "scene_windowed", "delay_sum",
+                                  "whitened_corr")])
 def test_other_kernels_keep_their_routes_above_2_20(launches, kernel, nfft,
                                                     n1):
     """K9's split, the GCCs' of K1, K2 and K5 (4 mics a scene) and the
     renders of K3 and K5 take the split of K4a, K4b and K6
     (``FFT_SPLIT_MAX``): n1 = 1,024 at 2^20, 2,048 from 2^21 to 2^23 and
-    4,096 at 2^24 and 2^25, the GCCs through their mic rows' spectra and
-    the renders through their base rows' spectra (``render_route``); 2^26
-    and the three-pass split above are
-    ``test_spectra_routes_reach_2_26``'s."""
+    4,096 at 2^24, the GCCs through their mic rows' spectra and the
+    renders through their base rows' spectra (``render_route``); at 2^25
+    the three-pass split through them, n1 = 16,384, as K4a's (its other
+    lengths are ``test_spectra_routes_reach_2_26``'s)."""
     _route(kernel, nfft)
     (args,) = _named(launches, kernel)
     if kernel == "scene_windowed":
@@ -278,12 +292,13 @@ def test_other_kernels_keep_their_routes_above_2_20(launches, kernel, nfft,
     else:
         assert args[N1_ARGS[kernel]] == (nfft, n1)
     assert cf.render_route(nfft).n1 == cf.gcc_route(nfft, 4).n1 == n1
+    want = cf.ROUTE_LONG if nfft > cf.FFT_SPLIT_MAX else cf.ROUTE_SPECTRA
     if kernel in ("delay_sum", "scene_windowed"):
         kind = args[18] if kernel == "delay_sum" else args[34]
-        assert kind == cf.ROUTE_SPECTRA
+        assert kind == want
     if kernel in ("gcc_all_pairs", "gcc_windowed", "scene_windowed"):
         kind = args[10 if kernel == "scene_windowed" else 6]
-        assert kind == cf.ROUTE_SPECTRA
+        assert kind == want
 
 
 # Where K3's and K5's render route (kind, column strip, K4a's pass-2
@@ -300,22 +315,22 @@ N1A_ARGS = {"delay_sum": 22, "scene_windowed": 14}
 @pytest.mark.parametrize("nfft,n1,strips", [
     (1 << 20, 1024, (16, 16, 16)), (1 << 21, 2048, (8, 16, 16)),
     (1 << 22, 2048, (8, 8, 8)), (1 << 23, 2048, (8, 4, 4)),
-    (1 << 24, 4096, (4, 4, 4)), (1 << 25, 4096, (4, 2, 2)),
-    (1 << 26, 8192, (2, 2, 2)), (1 << 27, 16384, (16, 2, 2)),
-    (1 << 28, 32768, (16, 2, 2))])
+    (1 << 24, 4096, (4, 4, 4)), (1 << 25, 16384, (16, 8, 2)),
+    (1 << 26, 32768, (16, 8, 2)), (1 << 27, 65536, (16, 8, 2)),
+    (1 << 28, 131072, (16, 8, 2))])
 def test_renders_from_2_20_take_the_base_rows_spectra(launches, monkeypatch,
                                                       nfft, n1, strips):
-    """K3 and K5 on one scene of 4 mics: from 2^20 to 2^26 the render
+    """K3 and K5 on one scene of 4 mics: from 2^20 to 2^24 the render
     through the base rows' spectra (``render_route``), n1 1,024 / 2,048 /
-    2,048 / 2,048 / 4,096 / 4,096 / 8,192 with ``spectra_plan``'s strips
-    (8 columns from n1 = 2,048, 4 at 4,096 and 2 at 8,192, K4a's pass-2
-    strip of one packed base row, 8 rows at n2 = 2,048, 4 at 4,096 and 2
-    at 8,192), K4a's packed base rows in the packed mic rows' buffer, the
-    spectra, and the finish spread over 128 blocks a packed mic row with
-    its partials (``finish_groups``); above 2^26 (2^27, 2^28) the same
-    on the three-pass split (n1 = nfft / 8,192 with its n1a, 16 columns,
-    K4a's pass-2 strip of 2 rows and 2 rows in the mix row pass), with a
-    second buffer of packed mic rows, which its pass A' writes."""
+    2,048 / 2,048 / 4,096 with ``spectra_plan``'s strips (8 columns from
+    n1 = 2,048 and 4 at 4,096, K4a's pass-2 strip of one packed base row,
+    8 rows at n2 = 2,048 and 4 at 4,096), K4a's packed base rows in the
+    packed mic rows' buffer, the spectra, and the finish spread over 128
+    blocks a packed mic row with its partials (``finish_groups``); above
+    2^24 (2^25 to 2^28) the same on the three-pass split (n1 = nfft /
+    2,048 with its n1a, 16 columns, K4a's pass-2 strip of 8 rows and 2
+    rows in the mix row pass), with a second buffer of packed mic rows,
+    which its pass A' writes."""
     length = None
     if nfft > 1 << 25:     # no table, and short rows, from 2^26
         _no_tables(monkeypatch)
@@ -402,16 +417,14 @@ def test_spread_finish_partials_cover_each_scene_chunk(launches):
 @pytest.mark.parametrize("nfft,strips", [(1 << 21, (8, 16, 16)),
                                          (1 << 22, (8, 8, 8)),
                                          (1 << 23, (8, 4, 4)),
-                                         (1 << 24, (4, 4, 4)),
-                                         (1 << 25, (4, 2, 2))])
+                                         (1 << 24, (4, 4, 4))])
 def test_k1_and_k9_above_2_20_take_k4a_strips(launches, nfft, strips):
     """Above 2^20 K1 launches with ``spectra_plan``'s strips — 8 columns
-    (4 at 2^24 and 2^25), K4a's pass-2 strip (``fft_real_rows_strip``)
-    and the row pass's (16 rows at 2^21, 8 at 2^22, 4 at 2^23 and 2^24, 2
-    at 2^25) — K4a's packed
-    rows and the cross rows in one buffer, and the spectra in a second; K9
-    with the same column and row strips; on ``gcc_rows`` (65,536 at 4
-    mics) K1's split passes no strip."""
+    (4 at 2^24), K4a's pass-2 strip (``fft_real_rows_strip``) and the row
+    pass's (16 rows at 2^21, 8 at 2^22, 4 at 2^23 and 2^24) — K4a's
+    packed rows and the cross rows in one buffer, and the spectra in a
+    second; K9 with the same column and row strips; on ``gcc_rows``
+    (65,536 at 4 mics) K1's split passes no strip."""
     _route("gcc_all_pairs", nfft)
     _route("whitened_corr", nfft)
     (k1,) = _named(launches, "gcc_all_pairs")
@@ -476,11 +489,11 @@ def test_gcc_routes_by_shape(launches, monkeypatch, kernel, nfft, mics,
     """K1, K2 and K5's GCC stage on both sides of every fit limit: where
     one block a scene or ``gcc_rows`` fits they launch as before the
     spectra routes (n1 1 or the split's, no strip, the same buffers);
-    beyond it, up to 2^26, through the mic rows' spectra — in one block up
+    beyond it, up to 2^24, through the mic rows' spectra — in one block up
     to 4,096 (n1 = 1, the spectra and nothing else), on the split above
     (K4a's strips, K4a's packed buffer shared with the cross rows, the
-    spectra, K2's and K5's partials) — and at 2^27 through them on the
-    three-pass split (``long_plan``'s strips, its n1a, the same buffers
+    spectra, K2's and K5's partials) — and at 2^25 and 2^27 through them
+    on the three-pass split (``long_plan``'s strips, its n1a, the same buffers
     and partials; K5's second buffer of packed mic rows); never on radix-2
     passes.  K5's route is K2's at every shape."""
     if nfft > cf.FFT_SPLIT_MAX:
@@ -505,7 +518,7 @@ def test_gcc_routes_by_shape(launches, monkeypatch, kernel, nfft, mics,
         assert (cols, rows) == cf.split_strips(split, nfft // split)
         assert s2 == cf.fft_real_rows_strip(nfft // split, (mics + 1) // 2)
     elif kind == cf.ROUTE_LONG:
-        assert (cols, s2, rows) == (16, 2, 2)
+        assert (cols, s2, rows) == (16, 8, 2)
     else:
         assert (cols, s2, rows) == (0, 0, 0)
     n1a = args[14 if kernel == "scene_windowed" else 10]
@@ -543,19 +556,19 @@ def test_no_gcc_route_runs_the_passes_up_to_2_22():
     the spectra routes reached 2^24, 2^24 before they reached 2^26, 2^26
     before the three-pass split took K2, K3 and K5 to 2^30) the GCC of
     K1, K2 and K5 takes one block, ``gcc_rows`` or the mic rows' spectra
-    on the split or, above 2^26, on the three-pass split, one rule for the
+    on the split or, above 2^24, on the three-pass split, one rule for the
     three, and the render of K3 and K5 (``render_route``) the same split
     as the GCC at each length; K9 (``corr_schedule``) too.  No route of
     radix-2 passes is left."""
     for bits in range(2, 31):
         nfft = 1 << bits
         render = cf.render_route(nfft)
-        assert (render.kind == cf.ROUTE_LONG) == (bits > 26)
+        assert (render.kind == cf.ROUTE_LONG) == (bits > 24)
         assert cf.corr_schedule(nfft) == cf.fft_real_split(nfft)[0] > 0
         for mics in range(2, 129):
             route = cf.gcc_route(nfft, mics)
             assert route.n1 > 0 and route.n1 == render.n1
-            assert (route.kind == cf.ROUTE_LONG) == (bits > 26)
+            assert (route.kind == cf.ROUTE_LONG) == (bits > 24)
             if route.kind == cf.ROUTE_LONG or render.kind == (
                     cf.ROUTE_SPECTRA):
                 assert route == render
@@ -590,16 +603,15 @@ def test_shapes_that_fit_keep_their_launches(launches, nfft, mics, want):
 def test_window_partials_follow_the_column_strip():
     """``window_cols``' partials: a block sum per column strip, 16
     columns on ``gcc_rows`` and up to 2^20, 8 from 2^21 to 2^23, 4 at
-    2^24 (1,024 blocks a row) and 2^25 (2,048: n2 = 8,192), 2 at 2^26
-    (4,096); ``long_cols_window``'s a block sum per block (j1b, strip of
-    16 columns), n1b x 512: 65,536 at 2^27, 131,072 at 2^30; none in one
-    block."""
+    2^24 (1,024 blocks a row); ``long_cols_window``'s a block sum per
+    block (j1b, strip of 16 columns), n1b x 128: 16,384 at 2^25 and 2^26,
+    32,768 at 2^27 and 2^28, 65,536 at 2^30; none in one block."""
     for nfft, mics, blocks in ((65536, 4, 16), (1 << 20, 4, 64),
                                (1 << 21, 4, 128), (1 << 22, 12, 256),
                                (1 << 23, 4, 512), (1 << 24, 4, 1024),
-                               (1 << 25, 4, 2048), (1 << 26, 4, 4096),
-                               (1 << 27, 4, 65536), (1 << 28, 3, 65536),
-                               (1 << 30, 4, 131072)):
+                               (1 << 25, 4, 16384), (1 << 26, 4, 16384),
+                               (1 << 27, 4, 32768), (1 << 28, 3, 32768),
+                               (1 << 30, 4, 65536)):
         keys, count, part = cf._window_scratch(3, nfft,
                                                cf.gcc_route(nfft, mics),
                                                "cpu")
@@ -610,10 +622,10 @@ def test_window_partials_follow_the_column_strip():
 
 
 # The spectra routes past 2^24: (n1, column strip, K4a's pass-2 strip, row
-# strip, n1a) at 2^25 and 2^26 (one scene of 4 mics, one row pair), at
-# 2^27 the three-pass split of all five.
-LONG_SPECTRA = {25: (4096, 4, 2, 2, 0), 26: (8192, 2, 2, 2, 0),
-                27: (16384, 16, 2, 2, 128)}
+# strip, n1a) at 2^25, 2^26 and 2^27 (one scene of 4 mics, one row pair),
+# the three-pass split of all five.
+LONG_SPECTRA = {25: (16384, 16, 8, 2, 128), 26: (32768, 16, 8, 2, 256),
+                27: (65536, 16, 8, 2, 256)}
 
 
 @pytest.mark.parametrize("bits", [25, 26, 27])
@@ -621,18 +633,16 @@ LONG_SPECTRA = {25: (4096, 4, 2, 2, 0), 26: (8192, 2, 2, 2, 0),
                                     "gcc_windowed", "delay_sum",
                                     "scene_windowed"])
 def test_spectra_routes_reach_2_26(launches, monkeypatch, kernel, bits):
-    """Each of K9, K1, K2, K3 and K5 takes the split to ``FFT_SPLIT_MAX``:
-    at 2^25 n1 = 4,096 with 4 columns and 2 rows a strip, at 2^26 n1 =
-    8,192 with strips of 2 (``spectra_plan``; K4a's pass 2 in strips of
-    2 at n2 = 8,192), one scratch copy (K1's and K2's packed rows shared
-    with the cross rows, the spectra beside them; K5's the same and the
-    render's base rows in its mic rows' buffer); at 2^27 all five the
-    three-pass split (n1 = 16,384 = 128 x 128, 16 columns and 2 rows a
-    strip, one scratch copy; the render a second buffer of packed mic
-    rows, which its pass A' writes)."""
+    """Each of K9, K1, K2, K3 and K5 takes the split to ``FFT_SPLIT_MAX``
+    (2^24), and at 2^25, 2^26 and 2^27 the three-pass split (n1 = nfft /
+    2,048 = n1a x n1b, 16 columns and 2 rows a strip, K4a's pass 2 in
+    strips of 8 rows at n2 = 2,048), one scratch copy (K1's and K2's
+    packed rows shared with the cross rows, the spectra beside them; K5's
+    the same and the render's base rows in its mic rows' buffer; the
+    render a second buffer of packed mic rows, which its pass A'
+    writes)."""
     nfft = 1 << bits
-    if bits > 25:
-        _no_tables(monkeypatch)
+    _no_tables(monkeypatch)
     _route(kernel, nfft, 1000)
     (args,) = _named(launches, kernel)
     n1, cs, s2, rs, n1a = LONG_SPECTRA[bits]
@@ -660,19 +670,19 @@ def test_spectra_routes_reach_2_26(launches, monkeypatch, kernel, bits):
         assert args[bufs][0] == args[bufs][2]
 
 
-@pytest.mark.parametrize("bits,n1a", [(27, 128), (28, 256)])
+@pytest.mark.parametrize("bits,n1a", [(27, 256), (28, 512)])
 @pytest.mark.parametrize("mics", [3, 4])
 def test_k9_and_k1_take_the_three_pass_split_above_2_26(launches, monkeypatch,
                                                         bits, n1a, mics):
     """Above 2^26 K9 (three row pairs) and K1 (one scene of 3 or 4 mics: an
     odd and an even pair count) launch on the three-pass split
-    (``long_plan``): n1 = nfft / 8,192 with its n1a, 16 columns and 2 rows
-    a strip (K1's K4a pass-2 strip 2), one scratch buffer (K9's packed
+    (``long_plan``): n1 = nfft / 2,048 with its n1a, 16 columns and 2 rows
+    a strip (K1's K4a pass-2 strip 8), one scratch buffer (K9's packed
     rows; K1's packed mic rows, which the cross rows reuse, beside the
     spectra), and K2 the same launch as K1's."""
     _no_tables(monkeypatch)
     nfft = 1 << bits
-    n1 = nfft // 8192
+    n1 = nfft // 2048
     scratch = []
     stub = cf._scratch
     monkeypatch.setattr(cf, "_scratch", lambda rows, n, device: (
@@ -689,7 +699,7 @@ def test_k9_and_k1_take_the_three_pass_split_above_2_26(launches, monkeypatch,
     scratch.clear()
     cf.gcc_all_pairs(torch.zeros(1, mics, 1000), pi, pj, nfft, mask)
     (k1,) = _named(launches, "gcc_all_pairs")
-    assert k1[1:11] == (1, mics, 1000, nfft, n1, cf.ROUTE_LONG, 16, 2, 2,
+    assert k1[1:11] == (1, mics, 1000, nfft, n1, cf.ROUTE_LONG, 16, 8, 2,
                         n1a)
     spec0, spec1, cross0 = k1[17:20]
     assert spec0 == cross0 and spec1 is not None
@@ -703,7 +713,7 @@ def test_k9_and_k1_take_the_three_pass_split_above_2_26(launches, monkeypatch,
     assert scratch == [max((mics + 1) // 2, (len(pi) + 1) // 2)]
 
 
-@pytest.mark.parametrize("bits,n1a", [(27, 128), (28, 256)])
+@pytest.mark.parametrize("bits,n1a", [(27, 256), (28, 512)])
 @pytest.mark.parametrize("mics", [3, 4])
 def test_k2_k3_and_k5_take_the_three_pass_split_above_2_26(
         launches, monkeypatch, bits, n1a, mics):
@@ -711,14 +721,14 @@ def test_k2_k3_and_k5_take_the_three_pass_split_above_2_26(
     three-pass split, no longer on radix-2 passes: K2 as K1 (its n1, n1a,
     16 columns and 2 rows a strip, K4a's packed mic rows shared with the
     cross rows beside the spectra, and its partials: a block sum for each
-    of ``long_cols_window``'s n1b x 512 blocks a cross row), K3 with the
+    of ``long_cols_window``'s n1b x 128 blocks a cross row), K3 with the
     base rows' spectra, the packed mic rows, the second buffer its pass
     A' writes and the finish spread over ``finish_groups``' blocks, K5
     both stages with one spectra buffer of the GCC's rows and the render's
     second buffer, K5's buffers the ones ``_scene_bytes`` counts."""
     _no_tables(monkeypatch)
     nfft = 1 << bits
-    n1 = nfft // 8192
+    n1 = nfft // 2048
     scratch = []
     stub = cf._scratch
     monkeypatch.setattr(cf, "_scratch", lambda rows, n, device: (
@@ -731,7 +741,7 @@ def test_k2_k3_and_k5_take_the_three_pass_split_above_2_26(
     mask = torch.empty(nfft // 2 + 1)
     base, fade = torch.zeros(1, length), torch.ones(length)
     tau, gains = torch.zeros(1, mics, 1), torch.ones(1, mics, 1)
-    sched = (n1, cf.ROUTE_LONG, 16, 2, 2, n1a)
+    sched = (n1, cf.ROUTE_LONG, 16, 8, 2, n1a)
     cf.gcc_windowed(torch.zeros(1, mics, length), pi, pj, nfft, 1, mask)
     (k2,) = _named(launches, "gcc_windowed")
     assert k2[5:11] == sched
@@ -740,7 +750,7 @@ def test_k2_k3_and_k5_take_the_three_pass_split_above_2_26(
     scratch.clear()
     cf.delay_sum(base, tau, gains, nfft, length, fade, True)
     (k3,) = _named(launches, "delay_sum")
-    assert k3[8] == n1 and k3[18:23] == (cf.ROUTE_LONG, 16, 2, 2, n1a)
+    assert k3[8] == n1 and k3[18:23] == (cf.ROUTE_LONG, 16, 8, 2, n1a)
     zb, z0, z1 = k3[15:18]
     assert zb == z0 and None not in (z1, k3[23]) and z1 != z0
     assert scratch == [packed, packed]
@@ -749,7 +759,7 @@ def test_k2_k3_and_k5_take_the_three_pass_split_above_2_26(
     cf.scene_windowed(base, tau, gains, pi, pj, nfft, length, 1, fade, mask)
     (k5,) = _named(launches, "scene_windowed")
     assert k5[7:15] == (nfft, n1) + sched
-    assert k5[34:38] == (cf.ROUTE_LONG, 16, 2, 2)
+    assert k5[34:38] == (cf.ROUTE_LONG, 16, 8, 2)
     zb, z0, z1, c0, spec = k5[26:31]
     assert zb == z0 == c0 and None not in (z1, spec) and z1 != z0
     assert None not in k5[31:34] and k5[38] == k3[24]
@@ -761,15 +771,15 @@ def test_k2_k3_and_k5_take_the_three_pass_split_above_2_26(
 
 
 @pytest.mark.parametrize("bits,scenes,chunks", [
-    (24, 30, [24, 6]), (25, 25, [12, 12, 1]), (26, 13, [6, 6, 1]),
+    (24, 30, [24, 6]), (25, 25, [8, 8, 8, 1]), (26, 13, [4, 4, 4, 1]),
     (27, 5, [2, 2, 1])])
 def test_scene_chunks_cap_their_scratch_by_bytes(launches, monkeypatch, bits,
                                                  scenes, chunks):
     """K1, K2, K3 and K5 over ``scenes`` scenes of 4 mics through the
     spectra: each launch takes at most as many scenes as keep its scratch
     within ``SPLIT_SCRATCH_BYTES`` (``scene_chunk``, ``_scene_bytes``:
-    0.67 GB a scene at 2^24, 1.34 GB at 2^25, 2.68 GB at 2^26, 7.52 GB
-    on the three-pass split at 2^27), 24, 12, 6 and 2 scenes, the same
+    0.67 GB a scene at 2^24, on the three-pass split 1.88 GB at 2^25,
+    3.76 GB at 2^26, 7.52 GB at 2^27), 24, 8, 4 and 2 scenes, the same
     chunks for the four, so that the sweep's fused and split paths stay
     equal to the bit; each chunk's finish spreads over the blocks of its
     own rows."""
@@ -831,14 +841,14 @@ N1_OF = dict(N1_ARGS, fft_real=slice(3, 5), bootstrap_peaks=slice(4, 6),
              noise_bootstrap_peaks=slice(4, 6))
 
 
-@pytest.mark.parametrize("bits,n1", [(24, 4096), (25, 4096), (26, 8192),
-                                     (27, 16384)])
+@pytest.mark.parametrize("bits,n1", [(24, 4096), (25, 16384), (26, 32768),
+                                     (27, 65536)])
 def test_all_transforming_kernels_leave_the_split_together(
         launches, monkeypatch, bits, n1):
     """All eight kernels that transform (K4a, K4b, K6, K9, K1, K2, K3, K5)
-    launch on the split at 2^24 and 2^25 (n1 = 4,096) and 2^26
-    (``FFT_SPLIT_MAX``, n1 = 8,192), one limit; at 2^27 all eight the
-    three-pass split (n1 = 16,384)."""
+    launch on the split at 2^24 (``FFT_SPLIT_MAX``, n1 = 4,096), one
+    limit; at 2^25, 2^26 and 2^27 all eight the three-pass split (n1 =
+    nfft / 2,048)."""
     nfft = 1 << bits
     length = None
     if bits > 25:          # no table, and short rows, at 2^26 and 2^27
@@ -913,8 +923,8 @@ def test_fft_real_caps_its_scratch_by_bytes(launches, monkeypatch):
     """K4a chunks by the same rule (``_launch_rows``): at the real cap
     1,000 rows of 2^22 stay one launch and 2^23 takes 512 a launch; with
     the cap lowered to four packed rows of 2^23, 11 rows launch as 8 and
-    3, each chunk's rows and spectra starting where the previous one
-    ended."""
+    2, then the odd last row's half-length transform, each launch's rows
+    and spectra starting where the previous one ended."""
     nfft = 1 << 23
     assert cf.SPLIT_SCRATCH_BYTES == 16 << 30
     assert cf._launch_rows(cf._split_n1(1 << 22), 1 << 22) == 1024
@@ -924,9 +934,11 @@ def test_fft_real_caps_its_scratch_by_bytes(launches, monkeypatch):
     monkeypatch.setattr(cf, "SPLIT_SCRATCH_BYTES", 4 * nfft * 8)
     cf.fft_real(torch.zeros(11, 8), nfft)
     calls = _named(launches, "fft_real")
-    assert [args[1] for args in calls] == [8, 3]
-    assert calls[1][0] - calls[0][0] == 8 * 8 * 4
-    assert calls[1][-1] - calls[0][-1] == 8 * (nfft // 2 + 1) * 8
+    assert [args[1] for args in calls] == [8, 2, 1]
+    assert [args[8] for args in calls] == [0, 0, 1]
+    for i, rows in ((1, 8), (2, 10)):
+        assert calls[i][0] - calls[0][0] == rows * 8 * 4
+        assert calls[i][-1] - calls[0][-1] == rows * (nfft // 2 + 1) * 8
 
 
 def test_row_kernels_launch_in_chunks_beyond_the_grid(launches):
@@ -1158,7 +1170,8 @@ def test_recorded_api_at_2_21_launches_k1_once_on_the_split(
     ``max_expected_delay`` 0.05): one K1 launch over the scene, on the
     split n1 = 2,048 (K4a's passes into the spectra, K9's row pass, the
     column pass), never K1's radix-2 passes; the permutation null K4a and
-    K4b on their split.  Kernels stubbed as in
+    K4b on their split (K4a's one-row spectra as half-length transforms of
+    2^20 points, n1 = 1,024).  Kernels stubbed as in
     ``test_recorded_api_reaches_k1_k4a_k4b``."""
     import copy
 
@@ -1184,7 +1197,8 @@ def test_recorded_api_at_2_21_launches_k1_once_on_the_split(
     assert cf.LAUNCHES["gcc_all_pairs"] == 1
     assert {n for n, _ in launches} == {"gcc_all_pairs", "fft_real",
                                         "bootstrap_peaks"}
-    assert {a[4] for a in _named(launches, "fft_real")} == {2048}
+    assert {a[4] for a in _named(launches, "fft_real")} == {1024}
+    assert {a[2] for a in _named(launches, "bootstrap_peaks")} == {4}
 
 
 @pytest.mark.parametrize("n2,want", [(1025, ["fft_real", "whitened_corr"]),

@@ -1,28 +1,19 @@
-"""The four-step split of every transforming kernel at 2^25 and 2^26, and
-its three-pass split above (2^27 to 2^30), checked on the CPU: the rules
-that pick its shapes, strips, shared memory and launches
-(``cuda_fft.fft_real_split``, ``split_strips``, ``fft_real_rows_strip``,
-``split_plan``, ``spectra_plan``, ``long_plan``, ``_split_n1``,
-``_launch_rows``), the one limit ``FFT_SPLIT_MAX`` of K4a, K4b, K6 and
-the spectra routes of K9, K1, K2, K3 and K5 (``gcc_route``,
-``render_route``, ``corr_schedule``), the twiddle table's n2-point copy
-that the split's first column pass and its row passes read from device
-memory there (``HiTable`` in ``csrc/kernels.cu``), and the float64 numpy
-models of ``tests/test_torch_fft_schedule.py`` at 2^25 with the n2-point
-table read as ``HiTable`` reads it, against ``np.fft`` or the float64
-twins: K4a, K4b, K9 and K3's render.  At 2^26 the maps alone (a model
-there would take twice 2^25's memory).
-
-Above 2^26 every transforming kernel takes the three-pass split
-(``long_plan``, ``FFT_LONG_MAX``), and no route is left to radix-2
-passes: its plan and limits at 2^27 to 2^30, one block's maps at 2^27 by
+"""The three-pass split of every transforming kernel above the split's
+one limit ``FFT_SPLIT_MAX`` (2^24), from 2^25 to 2^30, checked on the
+CPU: the rules that pick its shapes, strips, shared memory and launches
+(``cuda_fft.fft_real_split``, ``three_pass_shape``, ``long_plan``,
+``_split_n1``, ``_launch_rows``), the limit of K4a, K4b, K6 and the
+spectra routes of K9, K1, K2, K3 and K5 (``gcc_route``,
+``render_route``, ``corr_schedule``), its twiddle tables (the half
+tables and pass B's three, ``_twiddle_lengths``, ``tw3_sizes``), its
+plan and limits at 2^25 to 2^30, one block's maps at 2^25 to 2^27 by
 index arithmetic, and a float64 numpy model of its passes (A and B, K4a's
 row pass, ``boot_rows_long``, B' and A' with the maxima; K9's and the
 GCCs' ``corr_rows_long`` and A' with the correlations or with K2's window
 and statistics; K3's ``render_spec_rows_long``, A' into the render's
 second buffer and the finish) whose factors n1a x n1b x n2 are the
 model's arguments, small, against ``np.fft``, the float64 twins and the
-JAX package.  No n-point table above 2^25 is built here: at 2^27 it
+JAX package.  No n-point table above 2^20 is built here: at 2^27 it
 holds 2^26 entries.
 """
 
@@ -33,111 +24,85 @@ import torch
 from pyaudiolocalization_tpu_torch.ops import cuda_fft as cf
 import test_torch_fft_schedule as fs
 
-# (n1, n2), (column strip, row strip), K4a's pass-2 strip, rows a launch
-# (``_launch_rows``) and each launch's shared memory (``split_plan``:
-# cols, rows, boot_rows, boot_cols) at 2^25 and 2^26; the radix-2 passes
-# at 2^27.
-LONG = {25: ((4096, 8192), (4, 2), 2, 128,
-             (180_224, 163_968, 196_736, 147_584)),
-        26: ((8192, 8192), (2, 2), 2, 64,
-             (229_376, 163_968, 229_504, 163_968))}
+# The three-pass split at 2^25 and 2^26: (n1a, n1b), rows a launch
+# (``_launch_rows``) and the column passes' bytes (pass A, pass B).
+LONG = {25: ((128, 128), 128, (16_896, 26_112)),
+        26: ((256, 128), 64, (33_792, 27_136))}
 
 
-def _tables_as_read(n, n1, n2):
-    """``stage_split_lo_hi`` with hi in device memory: lo[r] = W_n^r (r <
-    n1) and hi[a] = W_n2^a read from the n2-point half table at a mod
-    n2/2, negated for a >= n2/2 (``HiTable``), in float64."""
-    half = n2 // 2
-    a = np.arange(n2)
-    w = fs._half_table(n2)[a & (half - 1)]
-    return fs._half_table(n)[:n1], np.where(a < half, w, -w)
-
-
-@pytest.fixture
-def hi_as_read(monkeypatch):
-    """The models' split tables (``_split_tables``) as the kernels read
-    them at n2 = 8,192."""
-    monkeypatch.setattr(fs, "_split_tables", _tables_as_read)
-
-
-def _np_stages(x, sgn=1.0):
-    """``block_fft``'s transform of every sequence of a strip (..., L, S)
-    by ``np.fft``: forward for sgn > 0, the unscaled inverse else."""
-    if sgn > 0:
-        return np.fft.fft(x, axis=-2)
-    return np.fft.ifft(x, axis=-2) * x.shape[-2]
-
-
-@pytest.fixture
-def np_stages(monkeypatch):
-    """The models' on-chip transforms (``block_fft``) by ``np.fft``, so
-    that a model of the spectra routes at 2^25 holds their maps, strips
-    and tables in seconds: ``block_fft``'s radix-16 stages at 4,096 and
-    8,192 points are held at 2^25 by ``test_fft_real_model_at_2_25`` and
-    ``test_bootstrap_model_at_2_25``."""
-    monkeypatch.setattr(fs, "block_fft", _np_stages)
+def pass_b_twiddle(n, e):
+    """Pass B's W_n^e (``Tw3`` in ``csrc/kernels.cu``): the product of
+    three full-circle tables of ``cuda_fft.tw3_sizes(n)`` (in float64),
+    T2[e >> 2b] * T1[(e >> b) mod 2^b] * T0[e mod 2^b], b = ceil(log2(n) /
+    3), every index within its table."""
+    (c0, _), (c1, s1), (c2, s2) = cf.tw3_sizes(n)
+    b = s1.bit_length() - 1
+    i2, i1, i0 = e >> (2 * b), (e >> b) & (c1 - 1), e & (c0 - 1)
+    assert s2 == 1 << (2 * b) and i2.max() < c2
+    tab = [np.exp(-2j * np.pi * np.arange(c) * s / n)
+           for c, s in cf.tw3_sizes(n)]
+    return tab[2][i2] * tab[1][i1] * tab[0][i0]
 
 
 @pytest.mark.parametrize("bits", [25, 26])
 def test_long_split_plan(bits):
-    """At 2^25 (4,096 x 8,192) and 2^26 (8,192 x 8,192) K4a, K4b and K6 run
-    the split: column strips of 4 and 2, row strips of 2 (one row k1 and
-    its partner), K4a's pass 2 in strips of 2 at any batch, 128 and 64
-    rows a launch under the 16 GiB scratch cap (64 and 32 packed rows).
-    No launch holds the n2-point table in shared memory there
-    (``split_hi_points``); every block holds at most ``BLOCK_POINTS``
-    points in at most ``SMEM_OPTIN`` bytes; with the table neither the
-    column nor the row pass would fit, and the next wider strip does not
-    fit where a narrower one is taken."""
+    """At 2^25 and 2^26, past ``FFT_SPLIT_MAX`` (2^24), K4a, K4b and K6
+    run the three-pass split: rows of 2,048 points, n1 = 16,384 = 128 x
+    128 and 32,768 = 256 x 128, both column passes in strips of 16 columns
+    (whole 32-byte sectors of each row, where the split would take 4 and 2
+    columns with its n2-point table in device memory), K4a's row pass in
+    strips of 8 rows at any batch (runs of 4 bins), ``boot_rows_long``'s
+    of 2 rows; 128 and 64 rows a launch under the 16 GiB scratch cap; the
+    half tables of n1, n2, n1a and n1b after the n-point one.  Every block
+    holds at most ``BLOCK_POINTS`` points in at most ``SMEM_OPTIN``
+    bytes."""
     n = 1 << bits
-    (n1, n2), strips, s2, rows, smem = LONG[bits]
-    assert cf.fft_real_split(n) == (n1, n2)
-    assert cf.split_strips(n1, n2) == strips
-    assert cf._split_n1(n) == n1 and cf._split_strips(n1, n) == strips
-    assert cf.split_hi_points(n2) == 0 and cf.split_hi_points(4096) == 4096
+    (n1a, n1b), rows, (a_smem, b_smem) = LONG[bits]
+    n1 = n1a * n1b
+    assert cf.fft_real_split(n) == (n1, 2048)
+    assert cf.three_pass_shape(n) == (n1a, n1b, 2048)
+    assert cf._split_n1(n) == n1 and cf._split_strips(n1, n) == (16, 2)
+    assert cf._long_n1a(n) == n1a
     assert cf._launch_rows(n1, n) == rows
     assert rows * n * 8 // 2 <= cf.SPLIT_SCRATCH_BYTES
-    cs, rs = strips
     for packed in (1, 2, 64):
-        assert cf.fft_real_rows_strip(n2, packed) == s2
-        plan = cf.split_plan(n, packed)
-        assert (plan.cols.strip, plan.rows.strip, plan.boot_rows.strip,
-                plan.boot_cols.strip) == (cs, s2, rs, cs)
-        assert tuple(p.smem for p in plan) == smem
-        for step, length in ((plan.cols, n1), (plan.rows, n2),
-                             (plan.boot_rows, n2), (plan.boot_cols, n1)):
+        plan = cf.long_plan(n, packed)
+        assert (plan.n1a, plan.n1b) == (n1a, n1b)
+        assert plan.cols_a == (16, a_smem) and plan.cols_b == (16, b_smem)
+        assert plan.rows == (8, 139_392)
+        assert plan.boot_rows == plan.corr_rows == (2, 41_088)
+        for step, length in ((plan.cols_a, n1a), (plan.cols_b, n1b),
+                             (plan.rows, 2048), (plan.boot_rows, 2048)):
             assert step.strip * length <= cf.BLOCK_POINTS
             assert step.smem <= cf.SMEM_OPTIN
-    assert 8 * (n1 // 2 + n1 + n2 + n1 * cs) > cf.SMEM_OPTIN
-    assert 8 * (n2 // 2 + n1 + n2 + rs * cf.row_ld(rs, n2)) > cf.SMEM_OPTIN
-    assert n1 * 2 * cs > cf.BLOCK_POINTS and n2 * 2 * rs > cf.BLOCK_POINTS
-    assert n2 % cs == 0 and n1 % rs == 0 and n1 % s2 == 0
-    assert cf._twiddle_lengths(n) == [n, n1, n2]
+    with pytest.raises(ValueError):
+        cf.split_plan(n)
+    assert cf._twiddle_lengths(n) == [n, n1, 2048, n1a, n1b]
 
 
 def test_passes_above_2_26(monkeypatch):
-    """Above ``FFT_SPLIT_MAX`` no kernel runs radix-2 passes any more.  At
-    2^27 K4a, K4b and K6 take the three-pass split (``long_plan``): n1 =
-    128 x 128 with n2 = 8,192, column strips of 16, row strips of 2, one
-    copy of the packed rows' scratch (32 rows a launch under the 16 GiB
-    cap), the n1a- and n1b-point half tables after the n-, n1- and
-    n2-point ones; ``split_plan`` still plans the two-pass split alone.
-    From 2^9 to 2^30 every route of K1, K2, K3 and K5 (``gcc_route`` at 2
-    to 16 mics, ``render_route``) is one of the split kinds — one block,
-    ``gcc_rows`` / ``render_rows``, the spectra on the split or in one
-    block, the three-pass split above 2^26 — with an n1 > 0; past
+    """Above ``FFT_SPLIT_MAX`` no kernel runs radix-2 passes.  At 2^27
+    K4a, K4b and K6 take the three-pass split (``long_plan``): n1 = 256 x
+    256 with n2 = 2,048, column strips of 16, row strips of 2, one copy of
+    the packed rows' scratch (32 rows a launch under the 16 GiB cap), the
+    n1a- and n1b-point half tables after the n-, n1- and n2-point ones;
+    ``split_plan`` still plans the two-pass split alone.  From 2^9 to 2^30
+    every route of K1, K2, K3 and K5 (``gcc_route`` at 2 to 16 mics,
+    ``render_route``) is one of the split kinds — one block, ``gcc_rows``
+    / ``render_rows``, the spectra on the split or in one block, the
+    three-pass split above 2^24 — with an n1 > 0; past
     ``FFT_LONG_MAX`` the routes and every wrapper raise (the CUDA branch
     forced on CPU tensors, nothing launched)."""
     n = 1 << 27
-    assert cf.FFT_SPLIT_MAX == 1 << 26 < n
-    assert cf._split_n1(n) == 16384 and cf._long_n1a(n) == 128
-    assert cf._split_strips(16384, n) == (16, 2)
+    assert cf.FFT_SPLIT_MAX == 1 << 24 < n
+    assert cf._split_n1(n) == 65536 and cf._long_n1a(n) == 256
+    assert cf._split_strips(65536, n) == (16, 2)
     with pytest.raises(ValueError):
         cf.split_plan(n)
-    assert cf._launch_rows(16384, n) == 32
+    assert cf._launch_rows(65536, n) == 32
     assert (32 // 2) * n * 8 <= cf.SPLIT_SCRATCH_BYTES
-    assert cf._twiddle_lengths(n) == [n, 16384, 8192, 128, 128]
-    assert cf.corr_schedule(n) == 16384 and cf._corr_strips(n) == (16, 2)
+    assert cf._twiddle_lengths(n) == [n, 65536, 2048, 256, 256]
+    assert cf.corr_schedule(n) == 65536 and cf._corr_strips(n) == (16, 2)
     kinds = {cf.ROUTE_BLOCK, cf.ROUTE_ROWS, cf.ROUTE_SPECTRA,
              cf.ROUTE_SPECTRA_BLOCK, cf.ROUTE_LONG}
     assert set(cf.ROUTE_NAMES) == kinds and not hasattr(cf, "ROUTE_PASSES")
@@ -147,7 +112,7 @@ def test_passes_above_2_26(monkeypatch):
                                             for m in range(2, 17)]
         for route in routes:
             assert route.kind in kinds and route.n1 > 0
-            assert (route.kind == cf.ROUTE_LONG) == (bits > 26)
+            assert (route.kind == cf.ROUTE_LONG) == (bits > 24)
     big = 2 * cf.FFT_LONG_MAX
     for rule in (cf.render_route, lambda x: cf.gcc_route(x, 4)):
         with pytest.raises(ValueError, match="FFT_LONG_MAX"):
@@ -172,34 +137,38 @@ def test_passes_above_2_26(monkeypatch):
 
 # The three-pass split at 2^27 to 2^30: (n1a, n1b), rows a launch under
 # the 16 GiB cap (``_launch_rows``) and the column passes' bytes (pass A,
-# pass B); both row passes hold 163,968 bytes.
-THREE = {27: ((128, 128), 32, (16_896, 16_896)),
-         28: ((256, 128), 16, (33_792, 16_896)),
-         29: ((256, 256), 8, (33_792, 33_792)),
-         30: ((512, 256), 4, (67_584, 33_792))}
+# pass B with its three twiddle tables); K4a's row pass holds 139,392
+# bytes, the other row passes 41,088.
+THREE = {27: ((256, 256), 32, (33_792, 46_080)),
+         28: ((512, 256), 16, (67_584, 52_224)),
+         29: ((512, 512), 8, (67_584, 88_064)),
+         30: ((1024, 512), 4, (135_168, 92_160))}
 
 
 @pytest.mark.parametrize("bits", [27, 28, 29, 30])
 def test_three_pass_plan(bits):
-    """``long_plan`` at 2^27 to 2^30: n = n1 x 8,192 (the row side of
-    2^26) with n1 = n1a x n1b; both column passes in strips of 16 columns
-    (128 bytes of each row a block reads or writes, whole 32-byte
-    sectors), at most ``BLOCK_POINTS`` points and ``SMEM_OPTIN`` bytes a
-    block (``long_cols_max`` 128 more; ``long_cols_corr`` pass A's); the
-    row passes in strips of 2 rows at any batch (row k1 and its partner),
-    163,968 bytes (``corr_rows_long`` in 1,024 threads); the launches'
-    rows, grids within their limits and the int index products below
-    2^31; the entry points' arguments (n1, strips, n1a), K9's and those of
-    the routes of K1, K2, K3 and K5 too."""
+    """``long_plan`` at 2^27 to 2^30: n = n1 x 2,048 (``LONG_N2``) with
+    n1 = n1a x n1b; both column passes in strips of 16 columns (128 bytes
+    of each row a block reads or writes, whole 32-byte sectors), at most
+    ``BLOCK_POINTS`` points and ``SMEM_OPTIN`` bytes a block
+    (``long_cols_max`` 128 more; ``long_cols_corr`` pass A's; pass B its
+    three twiddle tables, ``tw3_sizes``); K4a's row pass in strips of 8
+    rows (4 rows k1 and their partners: runs of 4 bins), the other row
+    passes in strips of 2 rows at any batch (row k1 and its partner),
+    41,088 bytes in 256 threads; the launches' rows, grids within their
+    limits and the int index products below 2^31; the entry points'
+    arguments (n1, strips, n1a), K9's and those of the routes of K1, K2,
+    K3 and K5 too."""
     n = 1 << bits
     (n1a, n1b), rows, (a_smem, b_smem) = THREE[bits]
     n1, n2 = cf.fft_real_split(n)
-    assert (n1, n2) == (n1a * n1b, 8192)
+    assert (n1, n2) == (n1a * n1b, 2048)
     for packed in (1, 2, 64):
         plan = cf.long_plan(n, packed)
         assert (plan.n1a, plan.n1b) == (n1a, n1b)
         assert plan.cols_a == (16, a_smem) and plan.cols_b == (16, b_smem)
-        assert plan.rows == plan.boot_rows == plan.corr_rows == (2, 163_968)
+        assert plan.rows == (8, 139_392)
+        assert plan.boot_rows == plan.corr_rows == (2, 41_088)
         assert plan.corr_cols == plan.cols_a
         assert plan.rows.strip == cf.fft_real_rows_strip(n2, packed)
         for step, length in ((plan.cols_a, n1a), (plan.cols_b, n1b),
@@ -228,7 +197,7 @@ def test_three_pass_plan(bits):
     assert cf.corr_schedule(n) == n1 and cf._corr_strips(n) == (16, 2)
     long = cf.GccRoute(cf.ROUTE_LONG, n1, 16, 2)
     assert cf.gcc_route(n, 4) == cf.render_route(n) == long
-    assert n2 * plan.corr_rows.strip // 16 == 1024 and n1a <= 1024
+    assert n2 * plan.corr_rows.strip // 16 == 256 and n1a <= 1024
 
 
 def test_long_limit():
@@ -285,8 +254,9 @@ def _long_b_maps(n1a, n1b, n2, strip, blocks=None):
 def long_forward_model(z, n1a, n1b, n2, strip=fs.S):
     """Passes A and B (``long_cols_a``, ``long_cols_b``) on packed rows z
     (packed, n) -> Y (packed, n1, n2), Y[k1, j2] as ``fft_real_cols``
-    writes it; asserts that each pass reads and writes every point once
-    and pass B the positions it read."""
+    writes it (pass B's twiddle from ``Tw3``'s three tables,
+    ``pass_b_twiddle``); asserts that each pass reads and writes every
+    point once and pass B the positions it read."""
     packed = z.shape[0]
     n1 = n1a * n1b
     n = n1 * n2
@@ -302,19 +272,19 @@ def long_forward_model(z, n1a, n1b, n2, strip=fs.S):
     assert np.array_equal(np.bincount(pos.ravel(), minlength=n),
                           np.ones(n, int))
     cols = fs.block_fft(y[:, pos].reshape(packed, -1, n1b, strip))
-    lo, hi = _tables_as_read(n, n1, n2)
-    y[:, pos] = cols.reshape(packed, *pos.shape) * fs._split_twiddle(
-        lo, hi, j2 * row, n1)
+    y[:, pos] = cols.reshape(packed, *pos.shape) * pass_b_twiddle(
+        n, j2 * row)
     return y.reshape(packed, n1, n2)
 
 
 def long_fft_real_model(x, n1a, n1b, n2):
     """K4a on the three-pass split n1a x n1b x n2: passes A and B, then
-    K4a's pass 2 in strips of 2 rows -> ((rows, n/2 + 1) spectra, writes
-    to each bin)."""
+    K4a's pass 2 in ``fft_real_rows_strip``'s strips (8 rows at n2 =
+    2,048) -> ((rows, n/2 + 1) spectra, writes to each bin)."""
     n = n1a * n1b * n2
     y = long_forward_model(fs._pack(x, n), n1a, n1b, n2)
-    out, writes = fs.rows_pass_model(y, n1a * n1b, n2, 2)
+    out, writes = fs.rows_pass_model(y, n1a * n1b, n2, min(
+        cf.fft_real_rows_strip(n2, y.shape[0]), n1a * n1b))
     return out[:x.shape[0]], writes[:x.shape[0]]
 
 
@@ -333,8 +303,7 @@ def long_bootstrap_model(s1, x, n1a, n1b, n2, strip=fs.S):
     y[:, slot_rows, :] = inv.transpose(0, 1, 3, 2)
     y = y.reshape(packed, n)
     pos, row, j2 = _long_b_maps(n1a, n1b, n2, strip)
-    lo, hi = _tables_as_read(n, n1, n2)
-    w = np.conj(fs._split_twiddle(lo, hi, j2 * row, n1))
+    w = np.conj(pass_b_twiddle(n, j2 * row))
     cols = fs.block_fft((y[:, pos] * w).reshape(packed, -1, n1b, strip),
                         -1.0)
     y[:, pos] = cols.reshape(packed, *pos.shape)
@@ -351,8 +320,8 @@ def long_bootstrap_model(s1, x, n1a, n1b, n2, strip=fs.S):
 
 
 # (n1a, n1b, n2): the model's factors, small, and with the program's row
-# side (n2 = 8,192: the row passes' strips of 2 rows of 8,192 points).
-FACTORS = [(8, 8, 64), (16, 8, 128), (8, 16, 8192)]
+# side (n2 = 2,048: K4a's row pass in strips of 8 rows, the others of 2).
+FACTORS = [(8, 8, 64), (16, 8, 128), (8, 16, 2048)]
 
 
 @pytest.mark.parametrize("factors", FACTORS)
@@ -448,8 +417,7 @@ def long_cols_inverse_model(y, n1a, n1b, n2, strip=fs.S):
     n = n1 * n2
     y = y.reshape(packed, n).copy()
     pos, row, j2 = _long_b_maps(n1a, n1b, n2, strip)
-    lo, hi = _tables_as_read(n, n1, n2)
-    w = np.conj(fs._split_twiddle(lo, hi, j2 * row, n1))
+    w = np.conj(pass_b_twiddle(n, j2 * row))
     cols = fs.block_fft((y[:, pos] * w).reshape(packed, -1, n1b, strip),
                         -1.0)
     y[:, pos] = cols.reshape(packed, *pos.shape)
@@ -928,7 +896,7 @@ def test_long_render_and_window_match_jax_package():
 
 
 def test_render_rows_long_and_window_maps_at_2_27():
-    """K3's mix row pass and K2's pass A' at 2^27 (128 x 128 x 8,192), by
+    """K3's mix row pass and K2's pass A' at 2^27 (256 x 256 x 2,048), by
     index arithmetic alone: ``render_spec_rows_long`` takes
     ``corr_rows_long``'s blocks, tasks and bytes (``pair_task`` over
     strips of 2 rows, the rows written whole without the twiddle: its
@@ -939,16 +907,16 @@ def test_render_rows_long_and_window_maps_at_2_27():
     blocks (j1b, strip) take samples n2 (n1b j1a + j1b) + j2 in runs of 16
     (pass A's load map, one to one); the window's 2w lags (w = 21 x 128,
     the fast path's) come from 2 x w / 16 blocks, each lag once; a row's
-    65,536 blocks keep 65,536 partials of each pair (``_window_scratch``),
-    which the last block's 128 threads sum 512 each; 131,072 blocks a
-    row at 2^30, every sample index below 2^31."""
+    32,768 blocks keep 32,768 partials of each pair (``_window_scratch``),
+    which the last block's 256 threads sum 128 each; 65,536 blocks a row
+    at 2^30, every sample index below 2^31."""
     n = 1 << 27
     plan = cf.long_plan(n)
     n1a, n1b, S = plan.n1a, plan.n1b, plan.cols_a.strip
     n1 = cf.fft_real_split(n)[0]
     route = cf.render_route(n)
     assert route == cf.gcc_route(n, 4) == cf.GccRoute(cf.ROUTE_LONG, n1, S, 2)
-    assert plan.corr_rows == (2, 8 * (8192 // 2 + 2 * cf.row_ld(2, 8192)))
+    assert plan.corr_rows == (2, 8 * (2048 // 2 + 2 * cf.row_ld(2, 2048)))
     mics = 4
     for pm in (0, 1):
         assert {(2 * pm) // mics, (2 * pm + 1) // mics} == {0}
@@ -957,7 +925,7 @@ def test_render_rows_long_and_window_maps_at_2_27():
     m = 1 << 30
     assert m * 2 >= 2 ** 31 and 2 * (m // 2 + 1) * 2 > 2 ** 31
     w = 21 * 128
-    t = _long_a_maps(n1a, n1b, 8192, S)[0]
+    t = _long_a_maps(n1a, n1b, 2048, S)[0]
     assert np.array_equal(np.bincount(t.ravel(), minlength=n),
                           np.ones(n, np.int64))
     assert (np.diff(t.reshape(t.shape[0], n1a, S), axis=-1) == 1).all()
@@ -969,19 +937,19 @@ def test_render_rows_long_and_window_maps_at_2_27():
     del t, at
     keys, count, part = cf._window_scratch(3, n, route, "cpu")
     assert (keys.numel(), count.numel(), part.numel()) == (6, 3,
-                                                           2 * 3 * 65536)
+                                                           2 * 3 * 32768)
     threads = n1a * S // 16
-    assert threads == 128 and 65536 // threads == 512
+    assert threads == 256 and 32768 // threads == 128
     big = cf.long_plan(1 << 30)
-    assert big.n1b * 8192 // 16 == 131072 and big.n1a == 512
+    assert big.n1b * 2048 // 16 == 65536 and big.n1a == 1024
     assert (1 << 30) - 1 < 2 ** 31
 
 
 def test_corr_rows_long_maps_at_2_27():
-    """K9's and K1's back half at 2^27 (128 x 128 x 8,192), by index
+    """K9's and K1's back half at 2^27 (256 x 256 x 2,048), by index
     arithmetic alone: ``corr_rows_long``'s block b holds rows b and n1 - b
     (block 0 rows 0 and n1/2), so the n1/2 blocks write every row once,
-    each row whole (8,192 points, 64 KB a row, no twiddle); each of its
+    each row whole (2,048 points, 16 KB a row, no twiddle); each of its
     tasks is a bin q <= n/2 and its mirror n - q in the same block, its
     tasks' bins n1 apart (the next block's the next bins);
     ``long_cols_corr``'s block (j1b, strip) writes samples n2 (n1b j1a +
@@ -1019,7 +987,7 @@ def test_corr_rows_long_maps_at_2_27():
 
 
 def test_three_pass_maps_at_2_27():
-    """One block's maps at 2^27 (128 x 128 x 8,192, strips of 16), by
+    """One block's maps at 2^27 (256 x 256 x 2,048, strips of 16), by
     index arithmetic alone: pass A's blocks (j1b, strip) load points n2
     (n1b j1a + j1b) + j2 in runs of 16 consecutive samples (64 bytes of
     each real row) and write 16 consecutive points (128 bytes) of rows
@@ -1069,37 +1037,28 @@ def test_three_pass_maps_at_2_27():
         assert len(p) == n2 + (b == 0)
 
 
-# The spectra routes at 2^24 to 2^26: (n1, column strip, row strip) of
-# ``gcc_route`` and ``render_route``, and the bytes of the row pass and the
-# column pass (``spectra_plan``).
-SPECTRA = {24: ((4096, 4, 4), 213_120, 147_456),
-           25: ((4096, 4, 2), 196_736, 147_456),
-           26: ((8192, 2, 2), 229_504, 163_840)}
-
-
 @pytest.mark.parametrize("bits", [24, 25, 26, 27])
 def test_spectra_routes_keep_their_limit(bits):
     """K9, K1, K2, K3 and K5 keep the split of K4a, K4b and K6 to its one
-    limit, ``FFT_SPLIT_MAX`` = 2^26: through the spectra at 2^24 (n1 =
-    4,096, strips of 4), 2^25 (n1 = 4,096, 4 columns, 2 rows) and 2^26
-    (n1 = 8,192, strips of 2) at every mic count (``gcc_route``,
+    limit, ``FFT_SPLIT_MAX`` = 2^24: through the spectra at 2^24 (n1 =
+    4,096, strips of 4) at every mic count (``gcc_route``,
     ``render_route``, ``corr_schedule``, the finish spread over the card),
-    the row pass at ``boot_rows``' strip and bytes (the n2-point table in
-    device memory at 2^25 and 2^26) and the column pass at the split's
-    column strip; at 2^27, where ``spectra_plan`` plans nothing, the
-    three-pass split of all five, the finish spread there too."""
+    the row pass at ``split_strips``' rows and bytes and the column pass at
+    the split's column strip; from 2^25, where ``spectra_plan`` plans
+    nothing, the three-pass split of all five (n1 = n / 2,048, 16 columns,
+    2 rows), the finish spread there too."""
     n = 1 << bits
     assert not hasattr(cf, "SPECTRA_SPLIT_MAX")
-    if bits == 27:
-        long = cf.GccRoute(cf.ROUTE_LONG, 16384, 16, 2)
-        assert cf.render_route(n) == long and cf.corr_schedule(n) == 16384
+    if bits > 24:
+        long = cf.GccRoute(cf.ROUTE_LONG, n // 2048, 16, 2)
+        assert cf.render_route(n) == long and cf.corr_schedule(n) == n // 2048
         for mics in (2, 3, 4, 8, 16, 64, 128):
             assert cf.gcc_route(n, mics) == long
         assert cf.finish_groups(n, 4) == 128
         with pytest.raises(ValueError):
             cf.spectra_plan(n)
         return
-    (n1, cs, rs), rows_smem, cols_smem = SPECTRA[bits]
+    n1, cs, rs = 4096, 4, 4
     spectra = cf.GccRoute(cf.ROUTE_SPECTRA, n1, cs, rs)
     assert cf.render_route(n) == spectra
     assert cf.corr_schedule(n) == n1
@@ -1110,146 +1069,83 @@ def test_spectra_routes_keep_their_limit(bits):
         plan = cf.spectra_plan(n, packed)
         split = cf.split_plan(n, packed)
         assert (plan.cols, plan.rows) == (split.cols, split.rows)
-        assert plan.spec_rows == split.boot_rows == (rs, rows_smem)
-        assert plan.spec_cols == (cs, cols_smem)
+        assert plan.spec_rows == (rs, 213_120)
+        assert split.boot_rows == (2, 147_584)
+        assert plan.spec_cols == (cs, 147_456)
         assert cf._spectra_strips(n, packed) == (cs, split.rows.strip, rs)
         for step in plan:
             assert step.smem <= cf.SMEM_OPTIN
         assert plan.spec_cols.smem + 257 <= cf.SMEM_OPTIN
 
 
-def test_corr_split_model_at_2_25(hi_as_read, np_stages):
-    """K9 at 2^25, one row pair of a 380 s recording's length at 44.1 kHz,
-    band-limited: ``corr_rows`` on strips of 2 rows (one row k1 and its
-    partner; block 0 row 0 and row n1/2) with the n2-point table read as
-    ``HiTable`` reads it, ``corr_cols`` on strips of 4 columns, against
-    ``whitened_corr_plain`` in float64 within 1e-9 of the max, every bin
-    gathered once and every sample written once."""
-    n = 1 << 25
-    assert cf.corr_schedule(n) == 4096
-    assert (cf.spectra_plan(n).spec_cols.strip,
-            cf.spectra_plan(n).spec_rows.strip) == (4, 2)
-    rng = np.random.default_rng(2025)
-    a, b = fs._spectra(rng, 1, n), fs._spectra(rng, 1, n)
-    mask = cf.band_mask(n, (300.0, 3400.0), 44100.0,
-                        dtype=torch.float64).numpy()
-    got = fs.corr_split_model(a, b, mask, n)
-    t = torch.from_numpy
-    want = cf.whitened_corr_plain(t(a), t(b), t(mask), n).numpy()
-    assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
-
-
-def test_render_spectra_model_at_2_25(hi_as_read, np_stages):
-    """K3's render (K5's too) through the base rows' spectra at 2^25: one
-    scene of 2 mics and one path, ``render_spec_rows`` mixing every mirror
-    pair on strips of 2 rows with the n2-point table read as ``HiTable``
-    reads it, ``render_cols`` on strips of 4 columns, from the bases' half
-    spectra (K4a's model at 2^25 is ``test_fft_real_model_at_2_25``),
-    against ``delay_sum_plain``'s transform (no finalize, fade 1) in
-    float64 within 1e-9 of the max."""
-    n = 1 << 25
-    assert cf.render_route(n) == cf.GccRoute(cf.ROUTE_SPECTRA, 4096, 4, 2)
-    base, tau, gain = fs._render_case(np.random.default_rng(325), 1, 2, 1,
-                                      n)
-    got = fs.render_spectra_model(base, tau, gain, n,
-                                  spec=np.fft.rfft(base, n=n))
-    t = torch.from_numpy
-    want = cf.delay_sum_plain(t(base), t(tau), t(gain), n, n,
-                              torch.ones(n, dtype=torch.float64),
-                              False).numpy()
-    assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
-
-
 def test_spectra_column_maps_at_2_26():
-    """The spectra routes' column passes at 2^26 (8,192 x 8,192), a block
-    alone: ``corr_cols``, ``window_cols`` and ``render_cols`` on strips of
-    2 columns write every sample once, in runs of 2 (half a 32-byte
-    sector a row), from the slots where the inverse column DFTs leave
-    them (``corr_cols_model``'s map), and ``window_cols`` keeps 4,096
-    partials a row (``_window_scratch``: one a block, summed in block
-    order by the row's last block).  The row passes' gather at 2^26 is
-    ``test_long_split_maps``'."""
+    """The spectra routes' column passes at 2^26 on the three-pass split
+    (256 x 128 x 2,048), a few blocks alone: pass A' (``long_cols_corr``,
+    ``long_cols_window``, ``long_cols_render``) writes samples n2 (n1b j1a
+    + j1b) + j2 in runs of 16 columns (128 bytes of each packed row, where
+    the split's ``corr_cols`` took 2 columns, half a 32-byte sector), and
+    B' reads and writes runs of 16 too; ``long_cols_window`` keeps n1b x
+    n2 / 16 = 16,384 partials a row (``_window_scratch``: one a block,
+    summed in block order by the row's last block)."""
     n = 1 << 26
-    n1, n2 = cf.fft_real_split(n)
-    cs = cf.spectra_plan(n).spec_cols.strip
-    assert (n1, n2, cs) == (8192, 8192, 2)
-    j = (np.arange(n1, dtype=np.int64)[:, None, None] * n2
-         + np.arange(n2 // cs)[:, None] * cs + np.arange(cs))
-    assert np.array_equal(np.bincount(j.ravel(), minlength=n),
-                          np.ones(n, np.int64))
-    assert (np.diff(j, axis=-1) == 1).all()
-    del j
+    plan = cf.long_plan(n)
+    n1a, n1b, S = plan.n1a, plan.n1b, plan.corr_cols.strip
+    n2 = n // (n1a * n1b)
+    assert (n1a, n1b, n2, S) == (256, 128, 2048, 16)
+    strips = n2 // S
+    for blk in (0, 1, strips, n1b * strips - 1):
+        t = _long_a_maps(n1a, n1b, n2, S, [blk])[0][0].reshape(n1a, S)
+        assert (np.diff(t, axis=-1) == 1).all()
+        assert (np.diff(t[:, 0]) == n1b * n2).all()
+        pos = _long_b_maps(n1a, n1b, n2, S, [blk])[0].reshape(n1b, S)
+        assert (np.diff(pos, axis=-1) == 1).all()
     keys, count, part = cf._window_scratch(3, n, cf.gcc_route(n, 4), "cpu")
     assert (keys.numel(), count.numel(), part.numel()) == (6, 3,
-                                                           2 * 3 * 4096)
+                                                           2 * 3 * 16384)
 
 
 def test_twiddle_table_at_2_25():
-    """At 2^25 the table carries the half tables of n1 = 4,096 and n2 =
-    8,192 after the n-point one (``_twiddles``).  ``HiTable`` reads W_n2^a
-    at offset n/2 + n1/2 + (a mod n2/2), negated for a >= n2/2: the float32
-    bits that the shared-memory staging (``stage_split_tables_of``) holds,
-    and those of every n1-th entry of the n-point table
-    (``stage_split_tables``); lo reads the n-point table's first n1."""
-    n, (n1, n2) = 1 << 25, LONG[25][0]
-    tab = cf._twiddles(n, "cpu").numpy()
-    assert tab.shape == (n // 2 + n1 // 2 + n2 // 2, 2)
-    half = n2 // 2
-    a = np.arange(n2)
-    t2 = tab[n // 2 + n1 // 2:]
-    sign = np.where(a < half, 1.0, -1.0).astype(np.float32)[:, None]
-    read = t2[a & (half - 1)] * sign
-    strided = tab[(a & (half - 1)) * n1] * sign
-    assert np.array_equal(read.view(np.int32), strided.view(np.int32))
-    t1 = tab[n // 2:n // 2 + n1 // 2]
-    assert np.array_equal(t1.view(np.int32), tab[:n // 2:n2].view(np.int32))
-
-
-def test_fft_real_model_at_2_25(hi_as_read):
-    """K4a at 2^25, one row of a 380 s recording's length at 44.1 kHz:
-    pass 1 over strips of 4 columns, pass 2 over blocks of one row k1 and
-    its partner (row n1/2 in row 0's block), against np.fft.rfft: each bin
-    written exactly once, DC and Nyquist exactly real."""
+    """At 2^25, on the three-pass split, the table (``_twiddles``) holds
+    the half tables of n = 2^25, n1 = 16,384, n2 = 2,048, n1a = n1b = 128
+    (``_twiddle_lengths``: 2^24 + 8,192 + 1,024 + 64 + 64 entries), then
+    pass B's three tables of W_n (``tw3_sizes``: 512 + 512 + 128 entries,
+    strides 1, 512 and 2^18), 16,787,712 entries in all; below 2^20 the
+    n-point table alone.  (Their values and offsets:
+    ``test_torch_k4a_half.py``.)"""
     n = 1 << 25
-    x = fs._rows(np.random.default_rng(25), 1, 16_800_000)
-    got, writes = fs.fft_real_model(x, n)
-    want = np.fft.rfft(x, n=n)
-    assert np.array_equal(writes, np.ones_like(writes))
-    assert np.abs(got - want).max() < 1e-9 * np.abs(want).max()
-    assert not got[:, 0].imag.any() and not got[:, -1].imag.any()
-
-
-def test_bootstrap_model_at_2_25(hi_as_read):
-    """K4b (and so K6, whose draws K4b's split transforms) at 2^25, one
-    row: the column pass, ``boot_rows`` on strips of 2 rows (every bin's
-    whitening task once, block 0 with row 0's and row n1/2's own pairs)
-    and ``boot_cols``' maxima, against irfft(whiten(s1 * conj(rfft(row))))
-    and ``bootstrap_peaks_plain``."""
-    n = 1 << 25
-    assert cf.split_strips(*cf.fft_real_split(n)) == (4, 2)
-    fs._check_boot(*fs._boot_case(np.random.default_rng(125), 1, n), n)
+    assert cf._twiddle_lengths(n) == [n, 16384, 2048, 128, 128]
+    assert cf.tw3_sizes(n) == [(512, 1), (512, 512), (128, 1 << 18)]
+    entries = (sum(length // 2 for length in cf._twiddle_lengths(n))
+               + sum(count for count, _ in cf.tw3_sizes(n)))
+    assert entries == 16_787_712
+    assert cf._twiddle_lengths(1 << 20) == [1 << 20]
 
 
 @pytest.mark.parametrize("bits", [25, 26])
 def test_long_split_maps(bits):
-    """The maps at 2^25 and 2^26, a block alone: the column passes' load
-    (K4a's and K4b's pass 1, K6's draws, K4b's pass 3) reads every point
-    once in runs of the strip's columns; K4a's pass 2 (strips of 2 rows)
-    writes every bin 0 .. n/2 once from its packed value and its mirror
-    n - k's; the one-strip row passes' tasks (strips of 2: ``boot_rows``'
-    whitening, and the spectra routes' ``corr_rows`` and
-    ``render_spec_rows``, which share ``pair_task``) take every bin of
-    the packed spectrum once, each task a bin and its mirror in its own
-    block, and gather every bin q <= n/2 of the natural-order spectra
-    once."""
+    """The three-pass split's maps at 2^25 and 2^26 (128 x 128 and 256 x
+    128 x 2,048), every block: passes A (K4a's and K4b's, K6's draws) and
+    B read and write every point once in runs of 16 columns; K4a's row
+    pass (strips of 8 rows, 4 rows k1 and their partners) writes every bin
+    0 .. n/2 once from its packed value and its mirror n - k's, slots 0..3
+    of a block 4 consecutive bins; the one-strip row passes' tasks (strips
+    of 2: ``boot_rows_long``' whitening, and the spectra routes'
+    ``corr_rows_long`` and ``render_spec_rows_long``, which share
+    ``pair_task``) take every bin of the packed spectrum once, each task a
+    bin and its mirror in its own block, and gather every bin q <= n/2 of
+    the natural-order spectra once."""
     n = 1 << bits
-    (n1, n2), (cs, rs), s2, _, _ = LONG[bits]
-    land = fs._strip_points(n1, n2, cs)
-    assert np.array_equal(np.bincount(land.ravel(), minlength=n),
-                          np.ones(n, int))
-    assert (np.diff(land.reshape(-1, cs), axis=-1) == 1).all()
-    del land
+    (n1a, n1b), _, _ = LONG[bits]
+    n1, n2, S = n1a * n1b, 2048, 16
+    for m in _long_a_maps(n1a, n1b, n2, S)[:2] + _long_b_maps(n1a, n1b, n2,
+                                                              S)[:1]:
+        assert np.array_equal(np.bincount(m.ravel(), minlength=n),
+                              np.ones(n, int))
+        assert (np.diff(m.reshape(-1, S), axis=-1) == 1).all()
+        del m
+    s2 = cf.long_plan(n).rows.strip
     slot_rows = fs._slot_rows(n1, s2)
+    assert (np.diff(slot_rows[:, :s2 // 2], axis=1) == 1).all()
     h2 = n2 // 2
     r = np.arange(s2)[None, :, None]
     k2 = np.arange(h2 + 1)[None, None, :]
@@ -1263,6 +1159,7 @@ def test_long_split_maps(bits):
                           np.ones(n // 2 + 1, int))
     assert ((k + mirror) % n == 0).all()
     del k, mirror
+    rs = cf.long_plan(n).boot_rows.strip
     slot_rows = fs._slot_rows(n1, rs)
     seen = np.zeros(n, np.int8)
     gathered = np.zeros(n // 2 + 1, np.int8)
@@ -1280,7 +1177,10 @@ def test_long_split_maps(bits):
 
 
 def test_row_stride_at_8192_is_conflict_free():
-    """K4a's pass 2 and ``boot_rows`` hold their 2 rows of 8,192 points at
-    ``row_ld`` = 8,200: one wavefront a half-warp."""
-    assert cf.row_ld(2, 8192) == 8200
-    fs.test_row_strip_stride_is_conflict_free(2, 8192)
+    """The three-pass split's row passes hold rows of 2,048 points at
+    ``row_ld``: 2,056 for ``boot_rows_long``'s, ``corr_rows_long``'s and
+    ``render_spec_rows_long``'s 2 rows, 2,050 for K4a's 8; one wavefront a
+    half-warp."""
+    assert cf.row_ld(2, 2048) == 2056 and cf.row_ld(8, 2048) == 2050
+    fs.test_row_strip_stride_is_conflict_free(2, 2048)
+    fs.test_row_strip_stride_is_conflict_free(8, 2048)

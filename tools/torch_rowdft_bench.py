@@ -52,15 +52,16 @@ and 1,000 draws, one row at 2^22 and three at 2^23 to 2^28 (two at
 draws at 2^23 and 300 at 2^24, each K4b or K6 case from ``HEAVY_POINTS``
 timed one call a loop and logged as not fitting where the card runs out
 of memory; ``--min-nfft N`` and ``--max-nfft M``: K4a's, K4b's and K6's
-shapes from N to M points alone, and K1 and K9 only from N <= 2^26; K1 at the
-23.7 s recording's 4 and 8 mics at 2^21, 4 mics at 2^22, 4 and 8 at 2^23,
-4 at 2^24, 4 and 8 at 2^25 and 4 at 2^26, K9 at one pair of each);
+shapes from N to M points alone, and K1 and K9 only from N <= 2^24
+(``FFT_SPLIT_MAX``); K1 at the 23.7 s recording's 4 and 8 mics at 2^21,
+4 mics at 2^22, 4 and 8 at 2^23 and 4 at 2^24, K9 at one pair of each);
 ``--gcc --long`` times only K1 and K9 (``ROUTE_GCC``) and K2, K3 and K5
 (``ROUTE_SCENES``) at the shapes where the GCC goes through the mic
 rows' spectra, and K3 at the shapes of its render through the base
-rows' spectra, to 2^26, and on the three-pass split K1 at 4 mics x
-2^27, K9 at one pair at 2^27 and 2^28 and K2, K3 and K5 at the fast
-path's 4 mics at 2^27 and 2^28 (``--min-nfft N`` and
+rows' spectra, to 2^24, and on the three-pass split from 2^25 (K1 at 4
+and 8 mics x 2^25, 4 x 2^26 and 4 x 2^27, K9 at one pair at 2^25 to 2^28
+and K2, K3 and K5 at the fast path's 4 mics at 2^25 to 2^28;
+``--min-nfft N`` and
 ``--max-nfft M``: those from N to M points;
 ``--scene --long``: those of K2, K3 and K5 alone, then chip_smoke.py's
 simulated 20 s, 60 s and 120 s scenes on the fast path, ``long_scenes``,
@@ -734,8 +735,8 @@ def scene(reps: int = 5, log=print, shapes=None) -> dict:
                 tol = SCENE_TOL[name] * (1.0 if finish else max(
                     float(want.abs().max()), 1.0))
                 if name == "gcc_windowed" and nfft > cf.STAGE_SPLIT_MAX:
-                    # Pair by pair above 2^26: the float64 twin of every
-                    # pair at once would take ~60 GB at 2^28.
+                    # Pair by pair past the split: the float64 twin of
+                    # every pair at once would take ~60 GB at 2^28.
                     step = len(pi) if nfft <= cf.FFT_SPLIT_MAX else 1
                     gap = max(float((want[..., q:q + step, :].double()
                                      - cf.gcc_windowed_plain(
